@@ -1,0 +1,48 @@
+"""Ground rules of the port: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller asks for the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "intrepppid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "intrepppid_tpu")
+
+
+def imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant):
+                yield arg.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_files_to_scan():
+    names = {p.name for p in PORT_FILES}
+    assert {"lstm.py", "lstm_cuda.py", "engine.py", "chip_smoke.py"} <= names
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        intrepppid_network(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:1")
+    assert resolve_device("cpu") == torch.device("cpu")
+    net = intrepppid_network(0, vocab_size=30, embedding_size=8, device="cpu")
+    assert all(p.device.type == "cpu" for p in net.parameters())
