@@ -10,11 +10,11 @@ exits non-zero with no result):
 1. build — compile every kernel from ``intrepppid_tpu_torch/csrc`` with
    ``nvcc`` (and the native tokenizer with ``g++``) in parallel, and print
    the ``-Xptxas -v`` summary (registers, shared memory, spills);
-2. kernel — the bidirectional-LSTM layer kernel against its plain PyTorch
-   version on the card, at the serve path's shapes (800 rows, T = 1500,
-   H = 64, layer 0 at E = 64 and layer 1 at E = 2 x 64) in f32 and bf16,
-   with lengths mixing 0, 1, T and random values, plus H = 32 at a smaller
-   size; then the kernel, the plain version and cuDNN's
+2. kernel — the bidirectional-LSTM layer forward (eval variant) against its
+   plain PyTorch version on the card, at the serve path's shapes (800 rows,
+   T = 1500, H = 64, layer 0 at E = 64 and layer 1 at E = 2 x 64) in f32
+   and bf16, with lengths mixing 0, 1, T and random values, plus H = 32 at
+   a smaller size; then the kernel, the plain version and cuDNN's
    ``nn.LSTM(bidirectional=True)`` (a yardstick the port never calls)
    timed with CUDA events at full lengths;
 3. serve — ``Serve.start`` at the manuscript width (vocab 250, E = 64,
@@ -22,7 +22,21 @@ exits non-zero with no result):
    ``.ckpt``, answering real HTTP requests on 127.0.0.1; probabilities are
    checked against the port's CPU plain forward, and the kernel's launch
    counter must rise during the requests;
-4. the ``kernels`` line, the card's name and power limit, and the result.
+4. train_kernel — the train step's kernels (the forward's train variant,
+   the backward sweep and the weight-gradient kernel) against their plain
+   versions at the train shapes (400 rows in 5 weight groups of 80,
+   T = 1500, H = 64, layer 0 at E = 64 with grouped W_hh and layer 1 at
+   E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
+   per-group maxima; then each kernel, its plain version and a PyTorch
+   yardstick (cuDNN forward and backward-data, cuBLAS products) timed with
+   CUDA events at full lengths, TF32 off;
+5. train — ``intrepppid_network(compute_dtype=bfloat16,
+   optimizer_type="ranger21_xx")`` on the card and the port's ``Trainer``
+   on synthetic quintuplet batches (80 pairs, T = 1500, dropout on): 2
+   warm-up steps, 12 timed steps, a profiled step, and each train kernel's
+   launch count, which must be > 0; then one step's gradients on the card
+   held against the port's CPU plain path at a small size;
+6. the ``kernels`` line, the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,9 +62,15 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 # serve path: bulk rung of 400 pairs = 800 encoder rows, top bucket 1500
 B_SERVE, T_SERVE, H_SERVE, E_SERVE = 800, 1500, 64, 64
+# train path: 80 pairs x 5 encoder calls = 400 rows in 5 weight groups
+PAIRS_TRAIN, G_TRAIN = 80, 5
+B_TRAIN = PAIRS_TRAIN * G_TRAIN
+T_TRAIN = 1500
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# H100 SXM published peaks (dense): f32 on CUDA cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): f32 on CUDA cores, bf16 on tensor
+# cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -63,7 +83,7 @@ def emit(obj) -> None:
 def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
-    from intrepppid_tpu_torch.ops.lstm_cuda import launch_plan
+    from intrepppid_tpu_torch.ops.lstm_cuda import bwd_launch_plan, launch_plan
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
@@ -77,7 +97,8 @@ def phase_build() -> dict:
     }
     # the kernel's shared memory is dynamic, so ptxas does not report it
     smem = {
-        f"{str(dtype).replace('torch.', '')} E={E}": launch_plan([E], H_SERVE, dtype)[2]
+        f"{kernel} {str(dtype).replace('torch.', '')} E={E}": plan([E], H_SERVE, dtype)[2]
+        for kernel, plan in (("fwd", launch_plan), ("bwd", bwd_launch_plan))
         for dtype in (torch.float32, torch.bfloat16)
         for E in (E_SERVE, 2 * H_SERVE)
     }
@@ -186,6 +207,19 @@ def phase_kernel(dev) -> dict:
         timings[name] = {"kernel_ms": k_ms, "plain_ms": p_ms,
                          "flops": flops, "bytes": nbytes}
 
+    # the kernel at the H = 32 width it also serves (the shapes of TPU
+    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128)
+    k_ms = p_ms = flops = nbytes = 0.0
+    for E_parts in ([32], [32, 32]):
+        args = layer_inputs(96, 300, E_parts, 32, torch.float32, dev, SEED, full_lengths=True)
+        k_ms += time_ms(lambda: bilstm_layer_fwd(*args, torch.float32), 5)
+        p_ms += time_ms(lambda: bilstm_layer_fwd_plain(*args, torch.float32), 2)
+        f, b = layer_work(96, 300, sum(E_parts), 32, 4)
+        flops, nbytes = flops + f, nbytes + b
+    timings["h32_float32"] = {"kernel_ms": k_ms, "plain_ms": p_ms, "flops": flops,
+                              "bytes": nbytes, "B": 96, "T": 300,
+                              "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3}
+
     # cuDNN yardstick: the same two-layer bidirectional stack, full lengths
     lstm = torch.nn.LSTM(E_SERVE, H_SERVE, num_layers=2, bidirectional=True).to(dev)
     x = torch.rand(T_SERVE, B_SERVE, E_SERVE, device=dev) * 2 - 1
@@ -230,12 +264,13 @@ def random_jax_params(seed: int, V=250, E=64, L=2) -> dict:
     }
 
 
-def profile_device(fn, top: int = 6) -> dict:
+def profile_device(fn, top: int = 6, groups=None) -> dict:
     """Wall and device time of ``fn()`` under ``torch.profiler``: the sum
     of the device events' durations (one stream, so they do not overlap),
     the idle share of the wall time, the device time by kernel name, and
     the host operators' own time (what keeps the host from feeding the
-    device)."""
+    device). ``groups`` maps a label to a substring of kernel names; the
+    device time of each group, and of the rest, is summed too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -252,10 +287,18 @@ def profile_device(fn, top: int = 6) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     host = sorted(((e.key, e.self_cpu_time_total) for e in prof.key_averages()),
                   key=lambda kv: -kv[1])[:top]
-    return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
-            "idle_share": 1.0 - device_us / wall_us,
-            "top_device_ms": {name[:80]: us / 1e3 for name, us in ranked},
-            "top_host_self_ms": {name[:80]: us / 1e3 for name, us in host}}
+    out = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+           "idle_share": 1.0 - device_us / wall_us,
+           "top_device_ms": {name[:80]: us / 1e3 for name, us in ranked},
+           "top_host_self_ms": {name[:80]: us / 1e3 for name, us in host}}
+    if groups:
+        split = {label: 0.0 for label in groups}
+        split["rest"] = 0.0
+        for name, us in by_name.items():
+            label = next((k for k, sub in groups.items() if sub in name), "rest")
+            split[label] += us / 1e3
+        out["device_ms_by_group"] = split
+    return out
 
 
 def http(base: str, path: str, payload=None):
@@ -373,6 +416,270 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
     return out
 
 
+# ----------------------------------------------------------- train kernels
+def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False):
+    """One train layer's operands at B_TRAIN rows: forward inputs, and the
+    backward's dy streams (two per direction for the lower layer, one for
+    the top) and final-state cotangents."""
+    parts, lengths, w_ih, _, bias = layer_inputs(
+        B_TRAIN, T_TRAIN, E_parts, H, dtype, dev, seed, full_lengths)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+    w_hh = (u(2, G, 4 * H, H) * H ** -0.5).to(dtype).contiguous()
+    if not full_lengths:
+        # the main path's per-call truncation gives every row of a group the
+        # group's longest length: groups 0-2 at 0, 1 and T; 3-4 keep random
+        # per-row values
+        Bg = B_TRAIN // G_TRAIN
+        lengths[: 3 * Bg] = torch.tensor([0, 1, T_TRAIN], dtype=torch.int32,
+                                         device=dev).repeat_interleave(Bg)
+    ny = 2 if len(E_parts) == 1 else 1
+    dyf = tuple(u(T_TRAIN, B_TRAIN, H).to(dtype) for _ in range(ny))
+    dyb = tuple(u(T_TRAIN, B_TRAIN, H).to(dtype) for _ in range(ny))
+    return parts, lengths, w_ih, w_hh, bias, dyf, dyb, u(2, B_TRAIN, H), u(2, B_TRAIN, H)
+
+
+def train_layer_work(E, H, size, ny):
+    """(flops, bytes) of each train kernel for one layer at full lengths:
+    multiply-adds x 2 over both directions, each input read once and each
+    output written once."""
+    rows = 2 * B_TRAIN * T_TRAIN  # (direction, row, step) triples
+    stream = B_TRAIN * T_TRAIN * size
+    weights = 2 * 4 * H * (E + G_TRAIN * H) * size + 2 * 4 * H * 4
+    fwd = (2 * rows * 4 * H * (E + H),
+           stream * E + weights + B_TRAIN * 4 + 4 * stream * H + 2 * 2 * B_TRAIN * H * 4)
+    # sweep: gate recompute 4H(E+H), dx 4H E, dh 4H H per (direction, row, step)
+    bwd = (2 * rows * 4 * H * (2 * E + 2 * H),
+           stream * E + 4 * stream * H + 2 * ny * stream * H + weights + B_TRAIN * 4
+           + 2 * 2 * B_TRAIN * H * 4 + 2 * stream * E + 2 * stream * 4 * H)
+    wgrad = (2 * rows * 4 * H * (E + H),
+             2 * stream * 4 * H + stream * E + 2 * stream * H
+             + 2 * 4 * H * (E + G_TRAIN * H) * 4)
+    return {"fwd": fwd, "bwd": bwd, "wgrad": wgrad}
+
+
+def phase_train_kernel(dev) -> dict:
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import (
+        bidir_layer_bwd,
+        bidir_layer_sweep,
+        bidir_layer_wgrad,
+        prev_states,
+    )
+
+    layers = [([E_SERVE], G_TRAIN), ([H_SERVE, H_SERVE], 1)]
+    H = H_SERVE
+
+    def err(got, want, tol):
+        a, b = got.float(), want.float()
+        e, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+        return e, e <= tol * scale
+
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (E_parts, G) in enumerate(layers):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                E_parts, H, G, dtype, dev, SEED + 10 + i)
+            got = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
+            want = L.bilstm_layer_fwd_plain(parts, lengths, w_ih, w_hh, bias, dtype,
+                                            with_states=True)
+            hs_f, hs_b, _, _, cs_f, cs_b = want
+            names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+            res = {n: err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)}
+            del got
+            dxf, dxb, dgc, dbias = L.bilstm_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b,
+                                                cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
+            dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+            ref = bidir_layer_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                  dyf, dyb, dhn, dcn, dtype)
+            torch.cuda.synchronize()
+            grads = list(dxf) + list(dxb) + [dw_ih, dw_hh, dbias]
+            refs = list(ref[0]) + list(ref[1]) + list(ref[2:])
+            gnames = ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
+                      + ["dW_ih", "dW_hh", "dbias"])
+            res.update({n: err(a, b, TOL[dtype]) for n, a, b in zip(gnames, grads, refs)})
+            check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
+                     "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
+                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
+            checks.append(check)
+            del parts, want, ref, grads, refs, dgc, dxf, dxb
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "train_kernel", "failed": check})
+                raise AssertionError(f"a train kernel disagrees with its plain version: {check}")
+
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        size = torch.empty((), dtype=dtype).element_size()
+        t = {k: 0.0 for k in ("fwd_ms", "bwd_ms", "wgrad_ms", "fwd_plain_ms", "bwd_plain_ms",
+                              "wgrad_plain_ms", "wgrad_library_ms")}
+        work = {k: [0.0, 0.0] for k in ("fwd", "bwd", "wgrad")}
+        for i, (E_parts, G) in enumerate(layers):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                E_parts, H, G, dtype, dev, SEED + 20 + i, full_lengths=True)
+            fwd_args = (parts, lengths, w_ih, w_hh, bias, dtype)
+            hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_layer_fwd_train(*fwd_args)
+            bwd_args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                        dhn, dcn, dtype)
+            dgc = L.bilstm_bwd(*bwd_args)[2]
+            t["fwd_ms"] += time_ms(lambda: L.bilstm_layer_fwd_train(*fwd_args), 5)
+            t["bwd_ms"] += time_ms(lambda: L.bilstm_bwd(*bwd_args), 5)
+            t["wgrad_ms"] += time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 5)
+            t["fwd_plain_ms"] += time_ms(
+                lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True), 1)
+            t["bwd_plain_ms"] += time_ms(lambda: bidir_layer_sweep(*bwd_args), 1)
+            t["wgrad_plain_ms"] += time_ms(
+                lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 2)
+            # cuBLAS products of the same operands (the wgrad kernel's
+            # yardstick): dW_ih over all rows, dW_hh per weight group
+            N, Bg = T_TRAIN * B_TRAIN, B_TRAIN // G
+            x = torch.cat(parts, dim=-1).reshape(N, -1)
+            d = dgc.reshape(2, N, 4 * H).transpose(1, 2)
+            dg = dgc.view(2, T_TRAIN, G, Bg, 4 * H).permute(0, 2, 4, 1, 3).reshape(
+                2, G, 4 * H, T_TRAIN * Bg)
+            hp = prev_states(hs_f, hs_b).view(2, T_TRAIN, G, Bg, H).permute(
+                0, 2, 1, 3, 4).reshape(2, G, T_TRAIN * Bg, H)
+            t["wgrad_library_ms"] += time_ms(lambda: (torch.matmul(d, x), torch.matmul(dg, hp)),
+                                             5)
+            for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
+                work[k][0] += f
+                work[k][1] += b
+            del parts, hs_f, hs_b, cs_f, cs_b, dgc, x, hp, d, dg, fwd_args, bwd_args
+        for k, (f, b) in work.items():
+            peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+            ops_ms, bytes_ms = f / peak * 1e3, b / PEAK_BYTES * 1e3
+            t[f"{k}_flops"], t[f"{k}_bytes"] = f, b
+            t[f"{k}_bound_ms"] = max(ops_ms, bytes_ms)
+            t[f"{k}_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        timings[name] = t
+
+    # cuDNN yardstick: the same two-layer bidirectional stack, f32, TF32 off,
+    # training-mode forward, then the backward for the input alone and for
+    # input and weights
+    lstm = torch.nn.LSTM(E_SERVE, H, num_layers=2, bidirectional=True).to(dev)
+    x = (torch.rand(T_TRAIN, B_TRAIN, E_SERVE, device=dev) * 2 - 1).requires_grad_()
+    dy = torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1
+    fwd_ms = time_ms(lambda: lstm(x), 5)
+    full_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 5)
+    for p in lstm.parameters():
+        p.requires_grad_(False)
+    data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 5)
+    del lstm, x, dy
+    timings["float32"].update({"cudnn_fwd_ms": fwd_ms, "cudnn_fwd_bwd_ms": full_ms,
+                               "cudnn_bwd_data_ms": data_ms - fwd_ms,
+                               "cudnn_bwd_ms": full_ms - fwd_ms})
+    out = {"phase": "train_kernel", "checks": checks, "timings": timings,
+           "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
+                     "layers": "E=64 (grouped W_hh) + E=2x64"}}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------------ train
+def quintuplet_batch(rng, B, T, vocab=250) -> dict:
+    """Synthetic quintuplet batch as bench.py builds it: ids in [1, vocab),
+    lengths uniform in [T/2, T] with the first row at full length, random
+    labels."""
+    def ids():
+        a = rng.integers(1, vocab, size=(B, T))
+        lens = rng.integers(T // 2, T + 1, size=B)
+        lens[0] = T
+        for i, n in enumerate(lens):
+            a[i, n:] = 0
+        return a.astype(np.int32)
+
+    batch = {k: ids() for k in ("p1", "p2", "anchor", "positive", "negative")}
+    batch["label"] = (rng.random(B) > 0.5).astype(np.int32)
+    return batch
+
+
+def train_counters():
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+
+    return {"bilstm_layer_fwd_train": L.bilstm_layer_fwd_train,
+            "bilstm_bwd": L.bilstm_bwd, "bilstm_wgrad": L.bilstm_wgrad,
+            "bilstm_layer_fwd": L.bilstm_layer_fwd}
+
+
+def phase_train(dev, warmup=2, steps=12) -> dict:
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(SEED)
+    net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.bfloat16,
+                             optimizer_type="ranger21_xx", device=dev, seed=SEED)
+    trainer = Trainer(net, seed=SEED)
+    batches = [quintuplet_batch(rng, PAIRS_TRAIN, T_TRAIN) for _ in range(4)]
+    counters = train_counters()
+    # the main path: every train step below goes through the kernels
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t = time.perf_counter()
+        aux = trainer.train_step(batches[i % len(batches)])
+        losses.append(aux["loss"].item())
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    breakdown = profile_device(
+        lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
+        groups={"fwd": "bilstm_layer_fwd_kernel", "sweep": "bilstm_bwd_kernel",
+                "wgrad": "bilstm_wgrad_kernel"})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    missing = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_wgrad")
+               if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"the train steps never launched {missing}")
+    del trainer, net
+    grad_check = train_grad_check(dev)
+    median = float(np.median(step_ms))
+    out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
+           "optimizer": "ranger21_xx", "dropout": 0.3, "step_ms": step_ms,
+           "median_step_ms": median, "pairs_per_s": PAIRS_TRAIN / median * 1e3,
+           "losses": losses, "launches": launches, "peak_memory_gib": peak_gib,
+           "step_profile": breakdown, "grad_check": grad_check}
+    emit(out)
+    return out
+
+
+def train_grad_check(dev, pairs=8, T=64) -> dict:
+    """One step's gradients on the card (the kernels) against the port's CPU
+    plain path: same seeded weights and batch, every dropout rate 0, f32.
+    Tolerance 1e-4 x max(1, max|grad|) per parameter: f32 sums in another
+    order, on the card and in the kernels, over T x 5 x pairs rows."""
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+
+    batch = quintuplet_batch(np.random.default_rng(SEED + 1), pairs, T)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
+                                 rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
+        tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
+        loss.backward()
+        grads[device.type] = {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+                              if p.grad is not None}
+    errs = {}
+    for name, ref in grads["cpu"].items():
+        got = grads["cuda"][name]
+        errs[name] = float((got - ref).abs().max())
+        if not errs[name] <= 1e-4 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"card gradient of {name} differs from the CPU's by {errs[name]}")
+    if set(grads["cpu"]) != set(grads["cuda"]) or not any(
+            n.startswith("encoder.lstm.") for n in grads["cuda"]):
+        raise AssertionError("the card's step did not reach the same parameters")
+    return {"pairs": pairs, "T": T, "dtype": "float32", "params": len(errs),
+            "max_abs_err": max(errs.values()), "tol": "1e-4 x max(1, max|grad|)"}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -390,13 +697,15 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(dev)
     serve = phase_serve(dev)
+    tk = phase_train_kernel(dev)
+    train = phase_train(dev)
 
     f32 = kern["timings"]["float32"]
     bound_ops = f32["flops"] / PEAK_F32_FLOPS * 1e3
     bound_bytes = f32["bytes"] / PEAK_BYTES * 1e3
     f32_err = max(max(c["max_abs_err"].values())
                   for c in kern["checks"] if c["dtype"] == "float32")
-    emit({"kernels": [{
+    kernels = [{
         "name": "bilstm_layer_fwd",
         "route": "cuda",
         "source": "intrepppid_tpu_torch/csrc/bilstm_fwd.cu",
@@ -404,13 +713,41 @@ def main() -> int:
         "launches": serve["launches"],
         "max_abs_err": f32_err,
         "ms": f32["kernel_ms"],
-        "kernel_ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": max(bound_ops, bound_bytes),
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
         "library_ms": f32["library_ms"],
-        "work": "both layers of one bulk dispatch, f32, B=800, T=1500, H=64",
-    }]})
+        "work": "eval variant, both layers of one bulk serve dispatch, f32, B=800, T=1500, H=64",
+    }]
+    t32 = tk["timings"]["float32"]
+    train_errs = {
+        "fwd": ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b"),
+        "bwd": ("dxf0", "dxf1", "dxb0", "dxb1", "dbias"),
+        "wgrad": ("dW_ih", "dW_hh"),
+    }
+    library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
+               "wgrad": t32["wgrad_library_ms"]}
+    for key, name, source, replaces in (
+        ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "lstm_pallas_packed.py:256"),
+        ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "lstm_pallas_packed.py:494"),
+        ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "lstm_pallas_packed.py:494"),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{source}",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(v for c in tk["checks"] if c["dtype"] == "float32"
+                               for n, v in c["max_abs_err"].items() if n in train_errs[key]),
+            "ms": t32[f"{key}_ms"],
+            "plain_ms": t32[f"{key}_plain_ms"],
+            "bound_ms": t32[f"{key}_bound_ms"],
+            "bound_by": t32[f"{key}_bound_by"],
+            "library_ms": library[key],
+            "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64",
+        })
+    emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -2,11 +2,12 @@
 NVIDIA H100.
 
 The JAX package ``intrepppid_tpu`` stays the reference that each part of
-the port is held against; the port imports nothing of it. The ported slice
-so far is the scoring server (``python -m intrepppid_tpu_torch serve
-start``), whose bidirectional-LSTM layer runs as a hand-written CUDA kernel
-(``csrc/bilstm_fwd.cu``). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+the port is held against; the port imports nothing of it. Ported so far:
+the scoring server (``python -m intrepppid_tpu_torch serve start``) and the
+quintuplet train step (``train.Trainer``). The bidirectional-LSTM layer
+runs as hand-written CUDA kernels (``csrc/``: the forward, the backward
+sweep and the weight gradients). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 __version__ = "0.1.0"
 

@@ -2,9 +2,11 @@
 
 Embedding lookup with the padding row zeroed, a bidirectional LSTM stack in
 torch weight layout, ``bi_reduce`` over the last layer's two final states
-and ``fc``. Only the eval forward is ported: embedding dropout and weight
-drop are the identity there (variational dropout, which the reference keeps
-active at eval, is not ported yet and is rejected).
+and ``fc``. In training, embedding dropout draws one vocabulary-row mask per
+encoder call and weight drop one DropConnect mask of the layer-0 forward
+``W_hh`` per call (`intrepppid_tpu/models/awd_lstm.py:131-174, 216-227`);
+both are the identity at eval. Variational dropout, which the reference
+keeps active at eval, is not ported yet and is rejected.
 
 Truncation is per encoder call, not per row: ``group_max_lengths`` gives
 every row of a call-group that group's longest non-pad length, and the
@@ -13,13 +15,13 @@ LSTM freezes state past it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from intrepppid_tpu_torch.ops.dropout import embedding_lookup
+from intrepppid_tpu_torch.ops.dropout import dropconnect_weight, embedding_dropout
 from intrepppid_tpu_torch.ops.lstm import bilstm
 
 BI_REDUCE_MODES = ("concat", "max", "mean", "last")
@@ -131,12 +133,35 @@ class AWDLSTMEncoder(nn.Module):
                 [new_linear(a, b, gen) for a, b in zip(dims[:-1], dims[1:])]
             )
 
-    def forward(self, ids: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def lstm_weights(self, train: bool, groups: int,
+                     gen: Optional[torch.Generator]) -> List[Dict[str, torch.Tensor]]:
+        """The stack's weights for one forward. In training with weight drop,
+        layer 0's forward ``W_hh`` gets one DropConnect mask per encoder call
+        (``w_hh (2, G, 4H, H)``, the reverse direction's matrix broadcast to
+        the G calls, so autograd sums its gradient over them)."""
+        layers = [dict(lp.items()) for lp in self.lstm]
+        p = self.cfg.rnn_dropout_rate
+        if not train or p == 0.0:
+            return layers
+        w_hh = layers[0]["w_hh"]
+        if groups > 1:
+            fwd = torch.stack([dropconnect_weight(w_hh[0], p, True, gen) for _ in range(groups)])
+            layers[0]["w_hh"] = torch.stack([fwd, w_hh[1].expand_as(fwd)])
+        else:
+            layers[0]["w_hh"] = torch.stack([dropconnect_weight(w_hh[0], p, True, gen), w_hh[1]])
+        return layers
+
+    def forward(self, ids: torch.Tensor, groups: int = 1, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sequence embeddings ``(B, E)`` for ids ``(B, T)``, the rows being
+        ``groups`` stacked encoder calls (group-major). ``train`` turns the
+        dropouts on, drawing from ``gen``."""
         cfg = self.cfg
         max_len = group_max_lengths(ids, groups)
-        x = embedding_lookup(self.embedding, ids, cfg.compute_dtype)
-        layers: List = list(self.lstm)
-        _, hn, _ = bilstm(layers, x, max_len, cfg.compute_dtype)
+        x = embedding_dropout(self.embedding, ids, cfg.embedding_droprate, train, gen,
+                              cfg.compute_dtype, groups)
+        _, hn, _ = bilstm(self.lstm_weights(train, groups, gen), x, max_len,
+                          cfg.compute_dtype)
         # last layer's final states: hn[-2] forward, hn[-1] reverse
         h_fwd, h_bwd = hn[-2], hn[-1]
         if cfg.bi_reduce == "max":

@@ -4,7 +4,7 @@ port's ``device`` (default ``"cuda"``), ``compute_dtype`` (a torch dtype)
 and ``seed`` for the initial weights."""
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Union
 
 import torch
 
@@ -14,7 +14,9 @@ from intrepppid_tpu_torch.utils.device import resolve_device
 
 
 class IntrepppidNetwork(TripletE2ENet):
-    """The network plus the training hyperparameters the factory takes."""
+    """The network plus the training hyperparameters the factory takes.
+    ``step(batch, gen, train)`` is the quintuplet train step's loss
+    (``models/triplet.py``); ``train/trainer.py`` drives it."""
 
     def __init__(self, cfg: TripletE2EConfig, gen: torch.Generator, *,
                  num_epochs: int, steps_per_epoch: int, optimizer_type: str,
@@ -27,6 +29,18 @@ class IntrepppidNetwork(TripletE2ENet):
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def param_groups(self) -> List[dict]:
+        """Parameters for an optimizer, in two groups. The LSTM tensors stack
+        the two directions on a leading axis, where the JAX package and the
+        reference keep one tensor per direction: their group is marked
+        ``direction_stacked``, so per-tensor optimizer math (Ranger21's unit
+        norms and gradient centralisation) treats each direction alone."""
+        stacked, rest = [], []
+        for name, p in self.named_parameters():
+            (stacked if name.startswith("encoder.lstm.") else rest).append(p)
+        return [{"params": stacked, "direction_stacked": True},
+                {"params": rest, "direction_stacked": False}]
 
 
 def intrepppid_network(

@@ -48,8 +48,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    # the shared headers are part of every source's hash
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _start(src: Path, nvcc: str) -> Tuple[Path, Path, Optional[subprocess.Popen]]:

@@ -1,22 +1,41 @@
 """Bidirectional multi-layer LSTM (`intrepppid_tpu/ops/lstm.py:87-217`).
 
-``bidir_layer`` is the plain PyTorch layer: the CPU path and the reference
-that the CUDA kernel (``ops/lstm_cuda.py``) is held against on the card.
-``bilstm`` runs the stack through ``lstm_cuda.bilstm_layer_fwd``, which
-takes this plain layer for CPU tensors and the kernel for CUDA tensors.
+The plain PyTorch versions of the layer kernels live here: the CPU path and
+the references the CUDA kernels (``ops/lstm_cuda.py``) are held against on
+the card.
 
-Semantics, shared by both versions and by the JAX package:
+* ``bidir_layer`` — one layer's forward; with ``with_states`` it also
+  returns the cell streams, as the train variant of the TPU forward kernel
+  does (``lstm_pallas_packed.py:392``, ``with_states=True``);
+* ``bidir_layer_sweep`` and ``bidir_layer_wgrad`` — the two halves of the
+  layer's backward (``lstm_pallas_packed.py:750 _bwd_pallas_packed``): the
+  reverse-time sweep, and the weight-gradient products over its gate
+  cotangent stream; ``bidir_layer_bwd`` runs both.
 
-* gate order i, f, g, o; torch weight layout ``w_ih (4H, in)``,
-  ``w_hh (4H, H)``; the bias is ``b_ih + b_hh`` summed in f32;
+``bilstm`` runs the stack: under autograd through ``ops/lstm_stack.py``
+(one ``torch.autograd.Function`` over the whole stack, in the role of
+``pallas_bilstm_stack``), otherwise layer by layer through
+``lstm_cuda.bilstm_layer_fwd``. Both take these plain versions for CPU
+tensors and the kernels for CUDA tensors.
+
+Semantics, shared by every version and by the JAX package:
+
+* gate order i, f, g, o; torch weight layout ``w_ih (2, 4H, E)`` and
+  ``w_hh (2, 4H, H)``, or grouped ``w_hh (2, G, 4H, H)`` with the batch
+  group-major and ``B % G == 0`` (one weight-dropped matrix per encoder
+  call); the bias is ``b_ih + b_hh`` summed in f32;
 * matmul operands are in the compute dtype and accumulate in f32; h and c
-  are f32; the layer outputs ``hs_f``/``hs_b`` are in the compute dtype;
+  are f32; the streams ``hs``/``cs`` are stored in the compute dtype;
 * a position updates the state iff ``pos < length`` for both directions:
   the reverse direction stays at zero until position ``length - 1``, rows
-  of length 0 keep zero state, and outputs past the length hold the frozen
-  state (zero for the reverse direction);
+  of length 0 keep zero state, and the streams hold the frozen state past
+  the length (zero for the reverse direction);
+* the backward recomputes the gates from x and the stored ``h_prev`` /
+  ``c_prev`` (``c_prev`` rounded to the compute dtype, as the TPU kernel
+  stores it); ``dh`` and ``dc`` pass through frozen positions unchanged;
 * the layer above takes the two directions as two feature parts, so the
-  2H concat is only built for the returned ``y``.
+  2H concat is only built for the returned ``y``; the backward returns the
+  input cotangent per part and per direction, unsummed.
 """
 from __future__ import annotations
 
@@ -25,6 +44,44 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 LayerParams = Dict[str, torch.Tensor]
+Streams = Tuple[torch.Tensor, ...]
+
+
+def _operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    # round to the compute dtype, then multiply in f32: the products of two
+    # bf16 values are exact in f32, so this is bf16 operands with f32
+    # accumulation
+    return t.to(compute_dtype).float()
+
+
+def grouped_w_hh(w_hh: torch.Tensor) -> torch.Tensor:
+    """``w_hh`` as ``(2, G, 4H, H)``; an ungrouped ``(2, 4H, H)`` is G = 1."""
+    return w_hh if w_hh.dim() == 4 else w_hh.unsqueeze(1)
+
+
+def _valid(T: int, lengths: torch.Tensor, dev) -> torch.Tensor:
+    """``(T, 2, B, 1)`` bool: step s updates the forward direction at
+    position s and the reverse direction at position T-1-s."""
+    steps = torch.arange(T, device=dev)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    return torch.stack(
+        [steps[:, None] < lengths[None, :], (T - 1 - steps)[:, None] < lengths[None, :]],
+        dim=1,
+    ).unsqueeze(-1)
+
+
+def _input_gates(x_parts, w_ih, bias, compute_dtype) -> torch.Tensor:
+    """Hoisted input projection for both directions, ``(T, 2, B, 4H)`` f32."""
+    x = torch.cat([_operand(p, compute_dtype) for p in x_parts], dim=-1)
+    xg = torch.einsum("tbe,dge->tdbg", x, _operand(w_ih, compute_dtype))
+    return xg + bias.float()[None, :, None, :]
+
+
+def _recurrent(h: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+    """``h (2, B, H)`` times the group's ``W_hh^T`` ``(2, G, H, 4H)``."""
+    D, B, H = h.shape
+    G = w_hh_t.shape[1]
+    return torch.matmul(h.reshape(D, G, B // G, H), w_hh_t).reshape(D, B, -1)
 
 
 def bidir_layer(
@@ -34,47 +91,38 @@ def bidir_layer(
     w_hh: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One bidirectional layer in plain PyTorch.
+    with_states: bool = False,
+) -> Streams:
+    """One bidirectional layer in plain PyTorch (differentiable by autograd).
 
     :param x_parts: 1 or 2 time-major ``(T, B, E_i)`` tensors whose feature
         concat is the layer input.
     :param lengths: ``(B,)`` int — positions ``>= length`` freeze the state.
-    :param w_ih: ``(2, 4H, E)``; ``w_hh``: ``(2, 4H, H)``; ``bias``:
-        ``(2, 4H)`` f32, direction 0 forward and 1 reverse.
-    :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype`` and
-        ``hn, cn (2, B, H)`` f32.
+    :param w_ih: ``(2, 4H, E)``; ``w_hh``: ``(2, 4H, H)`` or ``(2, G, 4H,
+        H)``; ``bias``: ``(2, 4H)`` f32; direction 0 forward, 1 reverse.
+    :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype`` and ``hn, cn
+        (2, B, H)`` f32; with ``with_states`` also ``cs_f, cs_b (T, B, H)``
+        in ``compute_dtype``.
     """
     T, B = x_parts[0].shape[:2]
     H = w_hh.shape[-1]
     dev = x_parts[0].device
+    w_hh = grouped_w_hh(w_hh)
+    if B % w_hh.shape[1]:
+        raise ValueError(f"batch {B} is not a multiple of the {w_hh.shape[1]} weight groups")
 
-    def operand(t: torch.Tensor) -> torch.Tensor:
-        # round to the compute dtype, then multiply in f32: the products of
-        # two bf16 values are exact in f32, so this is bf16 operands with
-        # f32 accumulation
-        return t.to(compute_dtype).float()
-
-    x = torch.cat([operand(p) for p in x_parts], dim=-1)
-    # hoisted input projection for both directions: (T, 2, B, 4H), with the
-    # reverse direction's rows flipped in time so step s reads row s
-    xg = torch.einsum("tbe,dge->tdbg", x, operand(w_ih))
-    xg += bias.float()[None, :, None, :]
+    xg = _input_gates(x_parts, w_ih, bias, compute_dtype)
+    # the reverse direction's step s reads position T-1-s
     xg[:, 1] = xg[:, 1].flip(0)
-    w_hh_t = operand(w_hh).transpose(1, 2)  # (2, H, 4H)
-
-    steps = torch.arange(T, device=dev)
-    lengths = lengths.to(device=dev, dtype=torch.int64)
-    valid = torch.stack(
-        [steps[:, None] < lengths[None, :], (T - 1 - steps)[:, None] < lengths[None, :]],
-        dim=1,
-    ).unsqueeze(-1)  # (T, 2, B, 1)
+    w_hh_t = _operand(w_hh, compute_dtype).transpose(-1, -2)  # (2, G, H, 4H)
+    valid = _valid(T, lengths, dev)
 
     h = torch.zeros(2, B, H, dtype=torch.float32, device=dev)
     c = torch.zeros_like(h)
     hs = torch.empty(2, T, B, H, dtype=compute_dtype, device=dev)
+    cs = torch.empty_like(hs) if with_states else None
     for s in range(T):
-        gates = xg[s] + torch.bmm(operand(h), w_hh_t)
+        gates = xg[s] + _recurrent(_operand(h, compute_dtype), w_hh_t)
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -82,7 +130,163 @@ def bidir_layer(
         c = torch.where(valid[s], c_new, c)
         hs[0, s] = h[0]
         hs[1, T - 1 - s] = h[1]
+        if cs is not None:
+            cs[0, s] = c[0]
+            cs[1, T - 1 - s] = c[1]
+    if cs is not None:
+        return hs[0], hs[1], h, c, cs[0], cs[1]
     return hs[0], hs[1], h, c
+
+
+def prev_states(s_f: torch.Tensor, s_b: torch.Tensor) -> torch.Tensor:
+    """``(2, T, B, H)`` state before each position: the forward direction's
+    at position p is ``s_f[p-1]`` (zero at p = 0), the reverse direction's
+    ``s_b[p+1]`` (zero at p = T-1)."""
+    zero = torch.zeros_like(s_f[:1])
+    return torch.stack([torch.cat([zero, s_f[:-1]]), torch.cat([s_b[1:], zero])])
+
+
+def bidir_layer_sweep(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> Tuple[Streams, Streams, torch.Tensor, torch.Tensor]:
+    """The backward sweep of one layer: an explicit reverse loop over time.
+
+    Each direction walks its positions in the reverse of its forward order.
+    Per step it recomputes the gates from x and the stored previous state,
+    adds the dy streams, forms the masked gate cotangent ``dgates`` (f32),
+    rounds it to ``dgc`` in the compute dtype, emits ``dx = dgc @ W_ih``
+    per part and per direction, and carries ``dh = dgc @ W_hh`` back.
+
+    :param dyf, dyb: 0, 1 or 2 unsummed ``(T, B, H)`` cotangent streams of
+        ``hs_f`` and ``hs_b`` (summed in f32 here).
+    :param dhn, dcn: ``(2, B, H)`` f32 cotangents of the final states, or
+        None for zero.
+    :returns: ``(dxf, dxb, dgc, dbias)``: ``dxf``/``dxb`` one ``(T, B,
+        E_i)`` tensor per input part in the compute dtype (the forward and
+        the reverse direction's contributions), ``dgc (2, T, B, 4H)`` in the
+        compute dtype (the weight-gradient products' operand), and ``dbias
+        (2, 4H)`` f32, summed from the unrounded ``dgates``.
+    """
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    dev = x_parts[0].device
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+
+    xg = _input_gates(x_parts, w_ih, bias, compute_dtype)  # (T, 2, B, 4H)
+    w_ih_c = _operand(w_ih, compute_dtype)  # (2, 4H, E)
+    w_hh_c = _operand(w_hh, compute_dtype)  # (2, G, 4H, H)
+    hp = prev_states(hs_f, hs_b).float()  # (2, T, B, H), compute-dtype values
+    cp = prev_states(cs_f, cs_b).float()
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+
+    def dy_sum(streams, pos):
+        out = torch.zeros(B, H, dtype=torch.float32, device=dev)
+        for st in streams:
+            out = out + st[pos].float()
+        return out
+
+    dh = torch.zeros(2, B, H, device=dev) if dhn is None else dhn.float().clone()
+    dc = torch.zeros(2, B, H, device=dev) if dcn is None else dcn.float().clone()
+    E = w_ih.shape[-1]
+    dx = torch.empty(2, T, B, E, dtype=compute_dtype, device=dev)
+    dgc_all = torch.empty(2, T, B, 4 * H, dtype=compute_dtype, device=dev)
+    dbias = torch.zeros(2, 4 * H, dtype=torch.float32, device=dev)
+    for s in range(T):
+        # the forward direction's sweep ran position s at step s, so its
+        # backward takes position T-1-s now; the reverse direction's the other way
+        pos = (T - 1 - s, s)
+        x_t = torch.stack([xg[pos[0], 0], xg[pos[1], 1]])  # (2, B, 4H)
+        h_prev = torch.stack([hp[0, pos[0]], hp[1, pos[1]]])
+        c_prev = torch.stack([cp[0, pos[0]], cp[1, pos[1]]])
+        dy = torch.stack([dy_sum(dyf, pos[0]), dy_sum(dyb, pos[1])])
+        m = torch.stack([pos[0] < lengths, pos[1] < lengths]).unsqueeze(-1).float()
+
+        gates = x_t + _recurrent(h_prev, w_hh_c.transpose(-1, -2))
+        ig = torch.sigmoid(gates[..., :H])
+        f = torch.sigmoid(gates[..., H:2 * H])
+        gg = torch.tanh(gates[..., 2 * H:3 * H])
+        o = torch.sigmoid(gates[..., 3 * H:])
+        c_new = f * c_prev + ig * gg
+        dh = dh + dy
+        tc = torch.tanh(c_new)
+        dc_t = dc + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([
+            dc_t * gg * ig * (1.0 - ig) * m,
+            dc_t * c_prev * f * (1.0 - f) * m,
+            dc_t * ig * (1.0 - gg * gg) * m,
+            dh * tc * o * (1.0 - o) * m,
+        ], dim=-1)  # (2, B, 4H) f32
+        dbias += dgates.sum(dim=1)
+        dgc = _operand(dgates, compute_dtype)
+        dgc_all[0, pos[0]] = dgc[0]
+        dgc_all[1, pos[1]] = dgc[1]
+        dx_t = torch.bmm(dgc, w_ih_c)  # (2, B, E)
+        dx[0, pos[0]] = dx_t[0]
+        dx[1, pos[1]] = dx_t[1]
+        dhp = torch.matmul(dgc.reshape(2, G, B // G, 4 * H), w_hh_c).reshape(2, B, H)
+        dh = dhp + dh * (1.0 - m)
+        dc = dc_t * f * m + dc * (1.0 - m)
+
+    splits = [p.shape[-1] for p in x_parts]
+    dxf = tuple(t.contiguous() for t in dx[0].split(splits, dim=-1))
+    dxb = tuple(t.contiguous() for t in dx[1].split(splits, dim=-1))
+    return dxf, dxb, dgc_all, dbias
+
+
+def bidir_layer_wgrad(
+    dgc: torch.Tensor,
+    x_parts: Sequence[torch.Tensor],
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight gradients from the sweep's gate cotangent stream:
+    ``dW_ih[d] = sum_{t,b} dgc[d,t,b] (x) x[t,b]`` and ``dW_hh[d,g] =
+    sum_{t, b in g} dgc[d,t,b] (x) h_prev[d,t,b]``, compute-dtype operands
+    with f32 accumulation.
+
+    :returns: ``dW_ih (2, 4H, E)`` and ``dW_hh (2, G, 4H, H)``, f32.
+    """
+    T, B = dgc.shape[1:3]
+    d = dgc.float()
+    x = torch.cat([p.float() for p in x_parts], dim=-1)
+    dw_ih = torch.einsum("dtbg,tbe->dge", d, x)
+    hp = prev_states(hs_f, hs_b).float()
+    G = groups
+    dw_hh = torch.einsum(
+        "dtnbg,dtnbh->dngh",
+        d.reshape(2, T, G, B // G, -1), hp.reshape(2, T, G, B // G, -1),
+    )
+    return dw_ih, dw_hh
+
+
+def bidir_layer_bwd(
+    x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+    dyf, dyb, dhn, dcn, compute_dtype,
+) -> Tuple[Streams, Streams, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole plain layer backward, ``bidir_layer_sweep`` then
+    ``bidir_layer_wgrad``, with the contract of the TPU kernel row 2:
+    ``(dxf, dxb, dW_ih (2,4H,E), dW_hh (2,G,4H,H), dbias (2,4H))``."""
+    dxf, dxb, dgc, dbias = bidir_layer_sweep(
+        x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+        dyf, dyb, dhn, dcn, compute_dtype,
+    )
+    dw_ih, dw_hh = bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
+    return dxf, dxb, dw_ih, dw_hh, dbias
 
 
 def stack_layer_weights(
@@ -106,23 +310,33 @@ def bilstm(
     """Run the stacked bidirectional LSTM.
 
     :param layers: one mapping per layer with direction-stacked tensors
-        ``w_ih (2, 4H, in)``, ``w_hh (2, 4H, H)``, ``b_ih``/``b_hh (2, 4H)``.
+        ``w_ih (2, 4H, in)``, ``w_hh (2, 4H, H)`` or ``(2, G, 4H, H)``,
+        ``b_ih``/``b_hh (2, 4H)``.
     :param x: embedded input ``(B, T, E)``.
     :param max_len: a scalar or a per-row ``(B,)`` vector of lengths;
         ``None`` runs the full window.
     :returns: ``(y (B, T, 2H), hn (2L, B, H), cn (2L, B, H))`` with ``hn`` in
         torch order ``[l0_fwd, l0_bwd, l1_fwd, l1_bwd, ...]``.
+
+    With grad mode on and any operand requiring grad, the stack runs as one
+    ``BiLSTMStack`` autograd unit (``ops/lstm_stack.py``); otherwise as the
+    eval forward, layer by layer.
     """
     from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd
+    from intrepppid_tpu_torch.ops.lstm_stack import bilstm_stack
 
     B, T, _ = x.shape
     if max_len is None:
         max_len = T
     lengths = torch.as_tensor(max_len, dtype=torch.int32, device=x.device)
     lengths = lengths.broadcast_to((B,)).contiguous()
-    parts: Tuple[torch.Tensor, ...] = (
-        x.to(compute_dtype).transpose(0, 1).contiguous(),
-    )
+    x_tm = x.to(compute_dtype).transpose(0, 1).contiguous()
+    operands = [x] + [t for lp in layers for t in lp.values()]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        hs_f, hs_b, hn, cn = bilstm_stack(layers, x_tm, lengths, compute_dtype)
+        y = torch.cat([hs_f, hs_b], dim=-1).transpose(0, 1)
+        return y, hn, cn
+    parts: Tuple[torch.Tensor, ...] = (x_tm,)
     hns, cns = [], []
     for lp in layers:
         w_ih, w_hh, bias = stack_layer_weights(lp, compute_dtype)

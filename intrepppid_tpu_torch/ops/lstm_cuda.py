@@ -1,79 +1,130 @@
-"""The bidirectional LSTM layer forward as a hand-written CUDA kernel.
+"""The bidirectional LSTM layer's hand-written CUDA kernels and wrappers.
 
-``bilstm_layer_fwd`` is the counterpart of the JAX package's eval-mode
-layer kernels, ``intrepppid_tpu/ops/lstm_pallas_packed.py:392
-_fwd_pallas_packed`` (``with_states=False``, used at 2H == 128) and
-``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` (other widths).
-The kernel is ``csrc/bilstm_fwd.cu``; its header says what bounds it on the
-card and how it is laid out. Its plain twin is ``ops/lstm.py:bidir_layer``.
+* ``bilstm_layer_fwd`` (eval) and ``bilstm_layer_fwd_train`` (train: also
+  the cell streams) launch ``csrc/bilstm_fwd.cu``, the counterpart of
+  ``intrepppid_tpu/ops/lstm_pallas_packed.py:392 _fwd_pallas_packed``
+  (``with_states`` False / True; used at 2H == 128) and of
+  ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` (other
+  widths). Plain twin: ``ops/lstm.py:bidir_layer``.
+* ``bilstm_bwd`` launches ``csrc/bilstm_bwd.cu``, the reverse-time sweep of
+  ``lstm_pallas_packed.py:750 _bwd_pallas_packed``. Plain twin:
+  ``ops/lstm.py:bidir_layer_sweep``.
+* ``bilstm_wgrad`` launches ``csrc/bilstm_wgrad.cu``, that kernel's weight-
+  gradient products. Plain twin: ``ops/lstm.py:bidir_layer_wgrad``.
 
-For a CPU tensor the wrapper runs the plain twin. For a CUDA tensor it
+Each source's header says what bounds it on the card and how it is laid
+out. For a CPU tensor a wrapper runs its plain twin. For a CUDA tensor it
 launches the kernel, or raises for a shape, dtype or layout the kernel does
-not take; it never falls back. ``bilstm_layer_fwd.launches`` counts kernel
-launches.
+not take; it never falls back. Where a weight group's rows are not a whole
+number of row tiles, the wrapper pads each group with length-0 rows and
+slices them off (the JAX package does the same, ``ops/lstm.py:241-260``).
+Each wrapper's ``.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from intrepppid_tpu_torch.ops import _build
-from intrepppid_tpu_torch.ops.lstm import bidir_layer as bilstm_layer_fwd_plain
+from intrepppid_tpu_torch.ops.lstm import (
+    bidir_layer,
+    bidir_layer_sweep,
+    bidir_layer_wgrad,
+    grouped_w_hh,
+)
+
+bilstm_layer_fwd_plain = bidir_layer
 
 # shared memory one block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
-# the kernel's compile-time constants (kRows, kMaxChunks, kMaxThreads in
-# csrc/bilstm_fwd.cu); checked against the built library when it loads
+# the kernels' compile-time constants, checked against each built library
+# when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
+# bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
+# bilstm_wgrad.cu (kTile)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
+BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
+WGRAD_TILE = 64
+# blocks the wgrad split aims for: a few waves of the 132 SMs
+WGRAD_TARGET_BLOCKS = 4 * 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "bilstm_fwd": ("bilstm_layer_fwd", [_I, _P, _P, _I, _I] + [_P] * 10 + [_I] * 7 + [_P]),
+    "bilstm_bwd": ("bilstm_bwd", [_I, _P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
+                   + [_I] * 6 + [_P]),
+    "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+}
+_CONSTANTS = {
+    "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
+                   (ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS)),
+    "bilstm_bwd": (("bilstm_bwd_rows_per_thread", "bilstm_bwd_max_chunks",
+                    "bilstm_bwd_max_threads", "bilstm_bwd_max_dx_rows", "bilstm_bwd_pad"),
+                   (BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, MAX_THREADS, BWD_MAX_DX_ROWS, BWD_PAD)),
+    "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
+}
+_ERROR_STRING = {"bilstm_fwd": "bilstm_error_string", "bilstm_bwd": "bilstm_bwd_error_string",
+                 "bilstm_wgrad": "bilstm_wgrad_error_string"}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("bilstm_fwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bilstm_layer_fwd.restype = i
-        lib.bilstm_layer_fwd.argtypes = [i, p, p, i, i, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, p]
-        lib.bilstm_error_string.restype = ctypes.c_char_p
-        lib.bilstm_error_string.argtypes = [i]
-        built = (lib.bilstm_rows_per_thread(), lib.bilstm_max_chunks(),
-                 lib.bilstm_max_threads())
-        if built != (ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS):
+def _kernels(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        fn, argtypes = _SIGNATURES[name]
+        getattr(lib, fn).restype = _I
+        getattr(lib, fn).argtypes = argtypes
+        err = getattr(lib, _ERROR_STRING[name])
+        err.restype, err.argtypes = ctypes.c_char_p, [_I]
+        names, want = _CONSTANTS[name]
+        built = tuple(getattr(lib, n)() for n in names)
+        if built != want:
             raise RuntimeError(
-                f"csrc/bilstm_fwd.cu was built with (kRows, kMaxChunks, "
-                f"kMaxThreads) = {built}; ops/lstm_cuda.py plans launches for "
-                f"{(ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS)}"
+                f"csrc/{name}.cu was built with {dict(zip(names, built))}; "
+                f"ops/lstm_cuda.py plans launches for {dict(zip(names, want))}"
             )
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
 
 
-def launch_plan(E_parts: Sequence[int], H: int,
-                dtype: torch.dtype) -> Tuple[int, int, int]:
-    """``(threads, rows_per_block, smem_bytes)`` for a layer, or ValueError
-    for a shape the kernel does not take."""
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(_kernels(name), _ERROR_STRING[name])(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _vec(dtype: torch.dtype) -> Tuple[int, int]:
     size = torch.empty((), dtype=dtype).element_size()
-    vec = 16 // size
-    if H % 4 or H > MAX_THREADS:
-        raise ValueError(f"bilstm kernel needs H % 4 == 0 and H <= {MAX_THREADS}, got H={H}")
+    return size, 16 // size
+
+
+def _check_parts(E_parts: Sequence[int], vec: int, dtype, what: str) -> None:
     if any(e <= 0 or e % vec for e in E_parts):
         raise ValueError(
-            f"bilstm kernel needs each input part's width to be a positive "
-            f"multiple of {vec} for {dtype}, got {list(E_parts)}"
+            f"{what} needs each input part's width to be a positive multiple "
+            f"of {vec} for {dtype}, got {list(E_parts)}"
         )
+
+
+def launch_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
+                rows_per_thread: int = ROWS_PER_THREAD) -> Tuple[int, int, int]:
+    """``(threads, rows_per_block, smem_bytes)`` of the forward kernel for a
+    layer, or ValueError for a shape it does not take."""
+    size, vec = _vec(dtype)
+    if H % 4 or H > MAX_THREADS:
+        raise ValueError(f"bilstm kernel needs H % 4 == 0 and H <= {MAX_THREADS}, got H={H}")
+    _check_parts(E_parts, vec, dtype, "bilstm kernel")
     E = sum(E_parts)
     groups = MAX_THREADS // H
-    threads, rows = H * groups, groups * ROWS_PER_THREAD
-
-    def a16(n: int) -> int:
-        return (n + 15) // 16 * 16
-
-    smem = a16(E * 4 * H * size) + a16(H * 4 * H * size) + 2 * rows * (E + H) * 4
+    threads, rows = H * groups, groups * rows_per_thread
+    smem = _a16(E * 4 * H * size) + _a16(H * 4 * H * size) + 2 * rows * (E + H) * 4
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"bilstm kernel: E={E}, H={H} in {dtype} needs {smem} bytes of "
@@ -84,6 +135,162 @@ def launch_plan(E_parts: Sequence[int], H: int,
     return threads, rows, smem
 
 
+def fwd_rows_per_thread(B: int, H: int, sms: int) -> int:
+    """Rows each forward thread owns: 2 when the halved row tiles still fit
+    the card's SMs in one wave (one block per SM: the resident weights take
+    most of its shared memory), which doubles the SMs a small batch fills;
+    otherwise 4, which reuses each weight load over more rows."""
+    tile = (MAX_THREADS // H) * 2
+    return 2 if 2 * -(-B // tile) <= sms else ROWS_PER_THREAD
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def bwd_launch_plan(E_parts: Sequence[int], H: int,
+                    dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(threads, rows_per_block, smem_bytes)`` of the backward sweep for a
+    layer, or ValueError for a shape it does not take."""
+    _, vec = _vec(dtype)
+    if H % vec or H % 4 or H > MAX_THREADS:
+        raise ValueError(
+            f"bilstm_bwd kernel needs H % {max(vec, 4)} == 0 and H <= {MAX_THREADS}, got H={H}"
+        )
+    _check_parts(E_parts, vec, dtype, "bilstm_bwd kernel")
+    E = sum(E_parts)
+    groups = MAX_THREADS // H
+    threads, rows = H * groups, groups * BWD_ROWS_PER_THREAD
+    if threads % E or (rows * E) % threads or rows * E // threads > BWD_MAX_DX_ROWS:
+        raise ValueError(
+            f"bilstm_bwd kernel maps one input column per thread: E={E} must "
+            f"divide {threads} and be a multiple of H/2 up to 4H (H={H})"
+        )
+    if rows * (E + H) // vec > BWD_MAX_CHUNKS * threads:
+        raise ValueError(f"bilstm_bwd kernel: input width E={E} too wide for H={H}")
+    ws = 4 * H + BWD_PAD
+    # the sweep keeps its resident weights in f32 whatever the dtype
+    smem = _a16(E * ws * 4) + _a16(H * ws * 4) + rows * (E + H + 4 * H) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"bilstm_bwd kernel: E={E}, H={H} in {dtype} needs {smem} bytes "
+            f"of shared memory, more than the {SMEM_LIMIT} a block may use"
+        )
+    return threads, rows, smem
+
+
+def wgrad_check(E_parts: Sequence[int], H: int) -> None:
+    """ValueError for a shape the weight-gradient kernel does not take."""
+    if (4 * H) % WGRAD_TILE or any(w <= 0 or w % 8 for w in (*E_parts, H)):
+        raise ValueError(
+            f"bilstm_wgrad kernel needs 4H % {WGRAD_TILE} == 0 and every width "
+            f"% 8 == 0, got E_parts={list(E_parts)}, H={H}"
+        )
+
+
+def _check(name, t, shape, dtype, dev) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"bilstm kernel: {name} must be a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _no_graph(*tensors) -> None:
+    """The kernels' outputs are filled through ctypes and carry no autograd
+    graph: refuse to drop a gradient silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "bilstm kernel outputs carry no autograd graph, and an operand "
+            "requires grad: run the stack through ops/lstm.py:bilstm (which "
+            "takes ops/lstm_stack.py's autograd Function when grad is on) or "
+            "call the kernel under torch.no_grad()"
+        )
+
+
+def _group_pad(t: torch.Tensor, dim: int, G: int, pad: int) -> torch.Tensor:
+    """Append ``pad`` zero rows to each of the G groups along ``dim``."""
+    shape = list(t.shape)
+    Bg = shape[dim] // G
+    v = t.reshape(shape[:dim] + [G, Bg] + shape[dim + 1:])
+    z = v.new_zeros(shape[:dim] + [G, pad] + shape[dim + 1:])
+    return torch.cat([v, z], dim=dim + 1).reshape(
+        shape[:dim] + [G * (Bg + pad)] + shape[dim + 1:]).contiguous()
+
+
+def _group_unpad(t: torch.Tensor, dim: int, G: int, Bg: int) -> torch.Tensor:
+    shape = list(t.shape)
+    Bgp = shape[dim] // G
+    return t.reshape(shape[:dim] + [G, Bgp] + shape[dim + 1:]).narrow(
+        dim + 1, 0, Bg).reshape(shape[:dim] + [G * Bg] + shape[dim + 1:])
+
+
+def _tile_pad(B: int, G: int, rows: int) -> int:
+    """Rows to add to each weight group so no row tile spans two groups."""
+    if G == 1:
+        return 0
+    return -(B // G) % rows
+
+
+def _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
+    if compute_dtype not in _DTYPE_CODES:
+        raise ValueError(f"bilstm kernel takes float32 or bfloat16, got {compute_dtype}")
+    if len(x_parts) not in (1, 2):
+        raise ValueError(f"bilstm kernel takes 1 or 2 input parts, got {len(x_parts)}")
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = w_hh.shape[-1]
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, p.shape[-1]), compute_dtype, dev)
+    E_parts = [p.shape[-1] for p in x_parts]
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), compute_dtype, dev)
+    _check("w_hh", w_hh, (2, G, 4 * H, H), compute_dtype, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    if B % G:
+        raise ValueError(f"bilstm kernel: batch {B} is not a multiple of {G} weight groups")
+
+    rpt = fwd_rows_per_thread(B, H, _sm_count(dev))
+    threads, rows, smem = launch_plan(E_parts, H, compute_dtype, rpt)
+    pad = _tile_pad(B, G, rows)
+    if pad:
+        x_parts = tuple(_group_pad(p, 1, G, pad) for p in x_parts)
+        lengths = _group_pad(lengths, 0, G, pad)
+    Bp = x_parts[0].shape[1]
+    lib = _kernels("bilstm_fwd")
+    hs_f = torch.empty((T, Bp, H), dtype=compute_dtype, device=dev)
+    hs_b = torch.empty_like(hs_f)
+    cs_f = torch.empty_like(hs_f) if with_states else None
+    cs_b = torch.empty_like(hs_f) if with_states else None
+    hn = torch.empty((2, Bp, H), dtype=torch.float32, device=dev)
+    cn = torch.empty_like(hn)
+    outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
+    if B == 0:
+        return outs
+    x1 = x_parts[1] if len(x_parts) == 2 else None
+    with torch.cuda.device(dev):
+        err = lib.bilstm_layer_fwd(
+            _DTYPE_CODES[compute_dtype],
+            x_parts[0].data_ptr(), x1.data_ptr() if x1 is not None else None,
+            E_parts[0], E_parts[1] if x1 is not None else 0,
+            lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(),
+            cs_f.data_ptr() if with_states else None, cs_b.data_ptr() if with_states else None,
+            hn.data_ptr(), cn.data_ptr(),
+            T, Bp, H, G, rpt, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error("bilstm_fwd", err)
+    if pad:
+        Bg = B // G
+        outs = tuple(_group_unpad(o, 1, G, Bg) for o in outs)
+    return outs
+
+
 def bilstm_layer_fwd(
     x_parts: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -92,68 +299,205 @@ def bilstm_layer_fwd(
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One bidirectional LSTM layer, time-major.
+    """One bidirectional LSTM layer, time-major, eval variant.
 
     :param x_parts: 1 or 2 ``(T, B, E_i)`` tensors in ``compute_dtype``.
     :param lengths: ``(B,)`` int32.
-    :param w_ih: ``(2, 4H, E)`` and ``w_hh`` ``(2, 4H, H)`` in
-        ``compute_dtype``; ``bias`` ``(2, 4H)`` f32 (``b_ih + b_hh``).
+    :param w_ih: ``(2, 4H, E)`` and ``w_hh`` ``(2, 4H, H)`` or ``(2, G, 4H,
+        H)`` in ``compute_dtype``; ``bias`` ``(2, 4H)`` f32 (``b_ih +
+        b_hh``).
     :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype``, ``hn, cn
         (2, B, H)`` f32.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    if compute_dtype not in _DTYPE_CODES:
-        raise ValueError(f"bilstm kernel takes float32 or bfloat16, got {compute_dtype}")
-    if len(x_parts) not in (1, 2):
-        raise ValueError(f"bilstm kernel takes 1 or 2 input parts, got {len(x_parts)}")
-    dev = x_parts[0].device
-    T, B = x_parts[0].shape[:2]
-    H = w_hh.shape[-1]
-
-    def check(name, t, shape, dtype):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"bilstm kernel: {name} must be a contiguous {dtype} tensor of "
-                f"shape {tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device} (contiguous={t.is_contiguous()})"
-            )
-
-    for k, p in enumerate(x_parts):
-        check(f"x_parts[{k}]", p, (T, B, p.shape[-1]), compute_dtype)
-    E_parts = [p.shape[-1] for p in x_parts]
-    check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), compute_dtype)
-    check("w_hh", w_hh, (2, 4 * H, H), compute_dtype)
-    check("bias", bias, (2, 4 * H), torch.float32)
-    check("lengths", lengths, (B,), torch.int32)
-
-    threads, _, smem = launch_plan(E_parts, H, compute_dtype)
-    lib = _kernels()
-    hs_f = torch.empty((T, B, H), dtype=compute_dtype, device=dev)
-    hs_b = torch.empty_like(hs_f)
-    hn = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    cn = torch.empty_like(hn)
-    if B == 0:
-        return hs_f, hs_b, hn, cn
-    x1 = x_parts[1] if len(x_parts) == 2 else None
-    with torch.cuda.device(dev):
-        err = lib.bilstm_layer_fwd(
-            _DTYPE_CODES[compute_dtype],
-            x_parts[0].data_ptr(), x1.data_ptr() if x1 is not None else None,
-            E_parts[0], E_parts[1] if x1 is not None else 0,
-            lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
-            hs_f.data_ptr(), hs_b.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-            T, B, H, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"bilstm_layer_fwd launch failed: CUDA error {err} "
-            f"({lib.bilstm_error_string(err).decode()})"
-        )
+    outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, False)
     bilstm_layer_fwd.launches += 1
-    return hs_f, hs_b, hn, cn
+    return outs
 
 
 bilstm_layer_fwd.launches = 0
+
+
+def bilstm_layer_fwd_train(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_layer_fwd`: the same operands,
+    and also the cell streams the backward reads.
+
+    :returns: ``hs_f, hs_b, hn, cn`` as the eval variant, then ``cs_f, cs_b
+        (T, B, H)`` in ``compute_dtype``.
+    """
+    x_parts = tuple(x_parts)
+    if not x_parts[0].is_cuda:
+        return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
+                                      with_states=True)
+    outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, True)
+    bilstm_layer_fwd_train.launches += 1
+    return outs
+
+
+bilstm_layer_fwd_train.launches = 0
+
+
+def bilstm_bwd(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+):
+    """One layer's backward sweep; the contract of
+    ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``."""
+    x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
+    if not x_parts[0].is_cuda:
+        return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                 dyf, dyb, dhn, dcn, compute_dtype)
+    if compute_dtype not in _DTYPE_CODES:
+        raise ValueError(f"bilstm_bwd kernel takes float32 or bfloat16, got {compute_dtype}")
+    if len(x_parts) not in (1, 2) or len(dyf) != len(dyb) or len(dyf) > 2:
+        raise ValueError(
+            f"bilstm_bwd kernel takes 1 or 2 input parts and 0-2 dy streams "
+            f"per direction, got {len(x_parts)} parts and {len(dyf)}/{len(dyb)} streams"
+        )
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+    cd = compute_dtype
+    E_parts = [p.shape[-1] for p in x_parts]
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
+    _check("w_hh", w_hh, (2, G, 4 * H, H), cd, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
+                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
+        _check(name, t, (T, B, H), cd, dev)
+    for name, t in (("dhn", dhn), ("dcn", dcn)):
+        if t is not None:
+            _check(name, t, (2, B, H), torch.float32, dev)
+    if B % G:
+        raise ValueError(f"bilstm_bwd kernel: batch {B} is not a multiple of {G} weight groups")
+
+    threads, rows, smem = bwd_launch_plan(E_parts, H, cd)
+    pad = _tile_pad(B, G, rows)
+    if pad:
+        x_parts = tuple(_group_pad(p, 1, G, pad) for p in x_parts)
+        lengths = _group_pad(lengths, 0, G, pad)
+        hs_f, hs_b, cs_f, cs_b = (_group_pad(t, 1, G, pad) for t in (hs_f, hs_b, cs_f, cs_b))
+        dyf = tuple(_group_pad(t, 1, G, pad) for t in dyf)
+        dyb = tuple(_group_pad(t, 1, G, pad) for t in dyb)
+        dhn = None if dhn is None else _group_pad(dhn, 1, G, pad)
+        dcn = None if dcn is None else _group_pad(dcn, 1, G, pad)
+    Bp = x_parts[0].shape[1]
+    lib = _kernels("bilstm_bwd")
+    dxf = tuple(torch.empty((T, Bp, e), dtype=cd, device=dev) for e in E_parts)
+    dxb = tuple(torch.empty((T, Bp, e), dtype=cd, device=dev) for e in E_parts)
+    dgc = torch.empty((2, T, Bp, 4 * H), dtype=cd, device=dev)
+    nblk = -(-Bp // rows)
+    dbias_part = torch.zeros((nblk, 2, 4 * H), dtype=torch.float32, device=dev)
+    if B > 0:
+        def ptr(seq, k):
+            return seq[k].data_ptr() if k < len(seq) else None
+
+        with torch.cuda.device(dev):
+            err = lib.bilstm_bwd(
+                _DTYPE_CODES[cd], ptr(x_parts, 0), ptr(x_parts, 1),
+                E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+                lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+                hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+                ptr(dyf, 0), ptr(dyf, 1), ptr(dyb, 0), ptr(dyb, 1), len(dyf),
+                None if dhn is None else dhn.data_ptr(),
+                None if dcn is None else dcn.data_ptr(),
+                ptr(dxf, 0), ptr(dxf, 1), ptr(dxb, 0), ptr(dxb, 1),
+                dgc.data_ptr(), dbias_part.data_ptr(),
+                T, Bp, H, G, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on_error("bilstm_bwd", err)
+        bilstm_bwd.launches += 1
+    dbias = dbias_part.sum(dim=0)
+    if pad:
+        Bg = B // G
+        dxf = tuple(_group_unpad(t, 1, G, Bg) for t in dxf)
+        dxb = tuple(_group_unpad(t, 1, G, Bg) for t in dxb)
+        dgc = _group_unpad(dgc, 2, G, Bg)
+    return dxf, dxb, dgc, dbias
+
+
+bilstm_bwd.launches = 0
+
+
+def bilstm_wgrad(
+    dgc: torch.Tensor,
+    x_parts: Sequence[torch.Tensor],
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's weight gradients; the contract of
+    ``ops/lstm.py:bidir_layer_wgrad``: returns ``dW_ih (2, 4H, E)`` and
+    ``dW_hh (2, G, 4H, H)``, f32."""
+    x_parts = tuple(x_parts)
+    if not dgc.is_cuda:
+        return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
+    cd = dgc.dtype
+    if cd not in _DTYPE_CODES:
+        raise ValueError(f"bilstm_wgrad kernel takes float32 or bfloat16, got {cd}")
+    if len(x_parts) not in (1, 2):
+        raise ValueError(f"bilstm_wgrad kernel takes 1 or 2 input parts, got {len(x_parts)}")
+    dev = dgc.device
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    G = groups
+    E_parts = [p.shape[-1] for p in x_parts]
+    wgrad_check(E_parts, H)
+    if B % G:
+        raise ValueError(f"bilstm_wgrad kernel: batch {B} is not a multiple of {G} groups")
+    _check("dgc", dgc, (2, T, B, 4 * H), cd, dev)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("hs_f", hs_f, (T, B, H), cd, dev)
+    _check("hs_b", hs_b, (T, B, H), cd, dev)
+
+    E = sum(E_parts)
+    tiles_y = (4 * H // WGRAD_TILE) * sum(-(-w // WGRAD_TILE) for w in (*E_parts, H))
+    splits = max(1, min(T, math.ceil(WGRAD_TARGET_BLOCKS / (tiles_y * 2 * G))))
+    partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        partial.zero_()
+    else:
+        lib = _kernels("bilstm_wgrad")
+        x1 = x_parts[1] if len(x_parts) == 2 else None
+        with torch.cuda.device(dev):
+            err = lib.bilstm_wgrad(
+                _DTYPE_CODES[cd], dgc.data_ptr(), x_parts[0].data_ptr(),
+                x1.data_ptr() if x1 is not None else None,
+                E_parts[0], E_parts[1] if x1 is not None else 0,
+                hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
+                T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on_error("bilstm_wgrad", err)
+        bilstm_wgrad.launches += 1
+    total = partial.sum(dim=0)  # (2, G, 4H, E + H)
+    return total[..., :E].sum(dim=1), total[..., E:].contiguous()
+
+
+bilstm_wgrad.launches = 0

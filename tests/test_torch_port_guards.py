@@ -31,7 +31,20 @@ def test_port_imports_no_jax(path):
 
 def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
-    assert {"lstm.py", "lstm_cuda.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"lstm.py", "lstm_cuda.py", "lstm_stack.py", "dropout.py", "losses.py",
+            "metrics.py", "ranger21.py", "schedules.py", "trainer.py", "engine.py",
+            "chip_smoke.py"} <= names
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each CUDA source has a wrapper that loads it by name, and the shared
+    header is part of every build's hash."""
+    from intrepppid_tpu_torch.ops import _build, lstm_cuda
+
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"}
+    assert sources == set(lstm_cuda._SIGNATURES)
+    assert any(_build.CSRC.glob("*.cuh"))
 
 
 def test_default_device_is_the_card(monkeypatch):

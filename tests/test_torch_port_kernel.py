@@ -1,17 +1,21 @@
-"""The port's LSTM layer kernel wrapper (``intrepppid_tpu_torch/ops/lstm_cuda.py``)
-and its plain PyTorch version (``ops/lstm.py:bidir_layer``), without JAX.
+"""The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
+the eval and train forward, the backward sweep, the weight gradients), their
+plain PyTorch versions (``ops/lstm.py``) and the stack's autograd
+(``ops/lstm_stack.py``), without JAX.
 
-On the CPU the wrapper takes its plain version. The tests marked ``cuda``
-hold the CUDA kernel against the plain version on the card and skip without
-one; this file imports no JAX, so it also runs on a machine that has none:
+On the CPU each wrapper takes its plain version. The tests marked ``cuda``
+hold each CUDA kernel against its plain version on the card and skip
+without one; this file imports no JAX, so it also runs on a machine that
+has none:
 
     python -m pytest --noconftest tests/test_torch_port_kernel.py -q
 """
 import pytest
 import torch
 
+from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.ops import lstm_cuda
-from intrepppid_tpu_torch.ops.lstm import bidir_layer
+from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_sweep, bidir_layer_wgrad
 
 
 def test_bilstm_masking_semantics():
@@ -74,12 +78,191 @@ def test_launch_plan(E_parts, H, dtype, ok):
     assert smem <= lstm_cuda.SMEM_LIMIT
 
 
+@pytest.mark.parametrize(
+    "E_parts,H,dtype,ok",
+    [
+        ([64], 64, torch.float32, True),
+        ([64, 64], 64, torch.float32, True),   # ~209 KB of f32 weights fits
+        ([64, 64], 64, torch.bfloat16, True),
+        ([32, 32], 32, torch.float32, True),
+        ([96, 96], 96, torch.float32, False),  # weights past shared memory
+        ([48], 64, torch.float32, False),      # E does not divide the threads
+        ([64], 60, torch.bfloat16, False),     # H not a 16-byte multiple
+    ],
+)
+def test_bwd_launch_plan(E_parts, H, dtype, ok):
+    if not ok:
+        with pytest.raises(ValueError, match="bilstm_bwd kernel"):
+            lstm_cuda.bwd_launch_plan(E_parts, H, dtype)
+        return
+    threads, rows, smem = lstm_cuda.bwd_launch_plan(E_parts, H, dtype)
+    assert threads % H == 0 and threads <= 256 and rows == threads // H * 2
+    assert smem <= lstm_cuda.SMEM_LIMIT
+
+
+def test_forward_rows_per_thread_fills_one_wave():
+    # 400 train rows at H = 64: 16-row tiles give 50 blocks, 8-row 100
+    assert lstm_cuda.fwd_rows_per_thread(400, 64, 132) == 2
+    # 800 serve rows would need 200 blocks of 8 rows: two waves, so 16
+    assert lstm_cuda.fwd_rows_per_thread(800, 64, 132) == 4
+    assert lstm_cuda.launch_plan([64], 64, torch.float32, 2)[1] == 8
+
+
+def test_wgrad_check():
+    lstm_cuda.wgrad_check([64, 64], 64)
+    lstm_cuda.wgrad_check([32], 32)
+    with pytest.raises(ValueError, match="bilstm_wgrad kernel"):
+        lstm_cuda.wgrad_check([64], 24)  # 4H not a multiple of 64
+
+
+def test_group_padding_round_trip():
+    """Each weight group is padded to whole row tiles with zero (length-0)
+    rows and sliced back, as the wrappers do for the kernels."""
+    t = torch.arange(2 * 12 * 3).reshape(2, 12, 3)
+    padded = lstm_cuda._group_pad(t, 1, 3, 4)
+    assert padded.shape == (2, 24, 3)
+    assert torch.equal(padded[:, 4:8], torch.zeros(2, 4, 3, dtype=t.dtype))
+    assert torch.equal(padded[:, 8:12], t[:, 4:8])
+    assert torch.equal(lstm_cuda._group_unpad(padded, 1, 3, 4), t)
+    assert lstm_cuda._tile_pad(400, 5, 16) == 0 and lstm_cuda._tile_pad(60, 5, 8) == 4
+    assert lstm_cuda._tile_pad(60, 1, 8) == 0
+
+
+def layer_case(T, B, E_parts, H, G, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
+
+    parts = tuple(u(T, B, e).to(dtype) for e in E_parts)
+    w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(dtype)
+    w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(dtype)
+    bias = u(2, 4 * H)
+    lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, T])
+    dy = [u(T, B, H).to(dtype) for _ in range(4)]
+    return parts, lengths, w_ih, w_hh, bias, dy, u(2, B, H), u(2, B, H)
+
+
+def test_train_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 4, [8, 8], 8, 2, torch.float32, torch.device("cpu"))
+    counts = [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_bwd,
+                                   lstm_cuda.bilstm_wgrad)]
+    fwd = lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, torch.float32)
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.float32, with_states=True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, want))
+    hs_f, hs_b, _, _, cs_f, cs_b = fwd
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            torch.float32)
+    got = lstm_cuda.bilstm_bwd(*args)
+    ref = bidir_layer_sweep(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1] + got[2:], ref[0] + ref[1] + ref[2:]))
+    gw = lstm_cuda.bilstm_wgrad(got[2], parts, hs_f, hs_b, 2)
+    rw = bidir_layer_wgrad(got[2], parts, hs_f, hs_b, 2)
+    assert all(torch.equal(a, b) for a, b in zip(gw, rw))
+    assert [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_bwd,
+                                 lstm_cuda.bilstm_wgrad)] == counts
+
+
+def test_kernel_refuses_operands_that_would_lose_their_gradient():
+    w = torch.zeros(2, 4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda._no_graph(torch.zeros(3), w)
+    with torch.no_grad():
+        lstm_cuda._no_graph(w)
+    lstm_cuda._no_graph(w.detach())
+
+
+def model_grads(device, dtype=torch.float32):
+    """``loss.backward()`` through a small model's train step: the
+    gradient of every LSTM parameter and of the embedding table."""
+    net = intrepppid_network(4, vocab_size=30, embedding_size=16, compute_dtype=dtype,
+                             device=device, rnn_dropout_rate=0.0, embedding_droprate=0.0,
+                             do_rate=0.0)
+    g = torch.Generator().manual_seed(0)
+    B, T = 8, 32
+    batch = {}
+    for k in ("anchor", "positive", "negative", "p1", "p2"):
+        ids = torch.randint(1, 30, (B, T), generator=g)
+        ids[1:, 20:] = 0
+        batch[k] = ids.to(device)
+    batch["label"] = torch.tensor([0, 1] * (B // 2), device=device)
+    loss, _ = net.step(batch, torch.Generator(device=device).manual_seed(0), train=True)
+    loss.backward()
+    return {n: p.grad for n, p in net.named_parameters()
+            if n.startswith("encoder.lstm.") or n == "encoder.embedding"}
+
+
+def test_model_backward_reaches_every_lstm_weight():
+    """Regression for the lost gradient: LSTM outputs filled through ctypes
+    carried no autograd graph, so on the card ``loss.backward()`` trained
+    only ``fc`` and the head. The stack now runs as one autograd Function:
+    every LSTM parameter and the embedding get a non-zero gradient."""
+    grads = model_grads(torch.device("cpu"))
+    assert len(grads) == 1 + 2 * 4
+    for name, grad in grads.items():
+        assert grad is not None and torch.all(torch.isfinite(grad)), name
+        assert float(grad.abs().sum()) > 0, name
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
+    """The card twin of the regression test: the same gradients as the
+    CPU's plain path, through the train forward, sweep and wgrad kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (lstm_cuda.bilstm_layer_fwd_train.launches, lstm_cuda.bilstm_bwd.launches,
+              lstm_cuda.bilstm_wgrad.launches)
+    got = model_grads(cuda_device)
+    torch.cuda.synchronize()
+    after = (lstm_cuda.bilstm_layer_fwd_train.launches, lstm_cuda.bilstm_bwd.launches,
+             lstm_cuda.bilstm_wgrad.launches)
+    assert all(a - b == 2 for a, b in zip(after, before))  # one per layer
+    want = model_grads(torch.device("cpu"))
+    for name, grad in got.items():
+        assert grad is not None and float(grad.abs().sum()) > 0, name
+        ref = want[name]
+        assert float((grad.cpu() - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E_parts,H,G,B", [([64], 64, 5, 30), ([64, 64], 64, 1, 50),
+                                           ([32, 32], 32, 3, 24)])
+def test_train_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
+    """Train forward, sweep and wgrad against their plain versions. Groups
+    of 6 rows (H = 64) and 8 rows (H = 32) are padded to whole row tiles."""
+    T = 30
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
+                                                                 cuda_device)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+
+    def close(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= tol * max(
+                1.0, float(b.float().abs().max()))
+
+    fwd = lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
+    ref = bidir_layer(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
+    close(fwd, ref)
+    hs_f, hs_b, _, _, cs_f, cs_b = ref
+    ny = 2 if len(E_parts) == 1 else 1
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn, dcn, dtype)
+    got, want = lstm_cuda.bilstm_bwd(*args), bidir_layer_sweep(*args)
+    close(got[0] + got[1] + got[2:], want[0] + want[1] + want[2:])
+    close(lstm_cuda.bilstm_wgrad(want[2], parts, hs_f, hs_b, G),
+          bidir_layer_wgrad(want[2], parts, hs_f, hs_b, G))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -118,3 +301,8 @@ def test_kernel_rejects_bad_operands_on_card(cuda_device):
         lstm_cuda.bilstm_layer_fwd(parts, lengths.long(), w_ih, w_hh, bias, torch.float32)
     with pytest.raises(ValueError, match="bilstm kernel"):
         lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, torch.float16)
+    # an operand that requires grad, under grad mode: the kernel's outputs
+    # would carry no graph, so the wrapper refuses
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih.requires_grad_(), w_hh, bias,
+                                   torch.float32)

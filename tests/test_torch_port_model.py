@@ -64,14 +64,23 @@ def test_bf16_forward_matches_jax():
 
 
 def test_concat_rejected_and_train_not_ported():
+    """``concat`` stays rejected; the train forward is ported now: with
+    dropout on it is stochastic, with the rates at 0 it equals eval."""
     with pytest.raises(ValueError, match="concat"):
         EncoderConfig(bi_reduce="concat")
     with pytest.raises(ValueError, match="bi_reduce"):
         EncoderConfig(bi_reduce="sum")
     net = intrepppid_network(0, vocab_size=VOCAB, embedding_size=EMBED, device="cpu")
-    ids = torch.ones(2, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(ids, ids, train=True)
+    x1, x2 = (torch.from_numpy(a) for a in padded_ids(8))
+    with torch.no_grad():
+        eval_logits = net(x1, x2)
+        a = net(x1, x2, train=True, gen=torch.Generator().manual_seed(0))
+        b = net(x1, x2, train=True, gen=torch.Generator().manual_seed(1))
+    assert torch.all(torch.isfinite(a)) and not torch.equal(a, b)
+    quiet = intrepppid_network(0, vocab_size=VOCAB, embedding_size=EMBED, device="cpu",
+                               rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
+    with torch.no_grad():
+        assert torch.equal(quiet(x1, x2, train=True), eval_logits)
 
 
 def test_group_max_lengths_is_per_call():
