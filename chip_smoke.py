@@ -36,7 +36,21 @@ exits non-zero with no result):
    warm-up steps, 12 timed steps, a profiled step, and each train kernel's
    launch count, which must be > 0; then one step's gradients on the card
    held against the port's CPU plain path at a small size;
-6. the ``kernels`` line, the card's name and power limit, and the result.
+6. wide_kernel — the wide route's kernels (input gates, the cluster
+   forward in both variants, the lite sweep) and the weight-gradient
+   kernel against their plain versions at the scaled configuration's
+   shapes (400 rows in 5 groups of 80, T = 1500, H = 256, layer 0 at
+   E = 256 with grouped W_hh and a stacked layer at E = 2 x 256) in f32 and
+   bf16, at H = 128 (T = 300), and the resident sweep and wgrad at H = 32
+   (T = 300); then each timed with CUDA events at full lengths beside its
+   plain version and a PyTorch yardstick (cuBLAS, cuDNN);
+7. train_scaled — the scaled configuration (embedding 256, 3 layers,
+   bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
+   steps, 6 timed steps and one eval step, whose launches must go through
+   the wide kernels and never through the resident train kernels, a
+   profiled step and peak memory; then one step's gradients at embedding
+   256 and 3 layers held against the CPU plain path;
+8. the ``kernels`` line, the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,6 +81,9 @@ PAIRS_TRAIN, G_TRAIN = 80, 5
 B_TRAIN = PAIRS_TRAIN * G_TRAIN
 T_TRAIN = 1500
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the scaled configuration: BASELINE.json configs[4],
+# tools/experiment_scaled_config.py:27-33 (embedding = hidden 256, 3 layers)
+E_SCALED, LAYERS_SCALED = 256, 3
 # H100 SXM published peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -132,6 +149,13 @@ def layer_inputs(B, T, E_parts, H, dtype, dev, seed, full_lengths=False):
         lengths[0], lengths[1], lengths[2] = 0, 1, T
         lengths[3::4] = T
     return parts, lengths, w_ih, w_hh, bias
+
+
+def rel_err(got, want, tol):
+    """(max abs error, whether it is within tol x max(1, max|want|))."""
+    a, b = got.float(), want.float()
+    e, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+    return e, e <= tol * scale
 
 
 def time_ms(fn, reps: int) -> float:
@@ -216,9 +240,15 @@ def phase_kernel(dev) -> dict:
         p_ms += time_ms(lambda: bilstm_layer_fwd_plain(*args, torch.float32), 2)
         f, b = layer_work(96, 300, sum(E_parts), 32, 4)
         flops, nbytes = flops + f, nbytes + b
+    lstm = torch.nn.LSTM(32, 32, num_layers=2, bidirectional=True).to(dev)
+    x = torch.rand(300, 96, 32, device=dev) * 2 - 1
+    with torch.inference_mode():
+        h32_lib_ms = time_ms(lambda: lstm(x), 5)
+    del lstm, x
     timings["h32_float32"] = {"kernel_ms": k_ms, "plain_ms": p_ms, "flops": flops,
                               "bytes": nbytes, "B": 96, "T": 300,
-                              "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3}
+                              "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+                              "library_ms": h32_lib_ms}
 
     # cuDNN yardstick: the same two-layer bidirectional stack, full lengths
     lstm = torch.nn.LSTM(E_SERVE, H_SERVE, num_layers=2, bidirectional=True).to(dev)
@@ -269,8 +299,9 @@ def profile_device(fn, top: int = 6, groups=None) -> dict:
     of the device events' durations (one stream, so they do not overlap),
     the idle share of the wall time, the device time by kernel name, and
     the host operators' own time (what keeps the host from feeding the
-    device). ``groups`` maps a label to a substring of kernel names; the
-    device time of each group, and of the rest, is summed too."""
+    device). ``groups`` maps a label to a substring of kernel names (or a
+    tuple of them); the device time of each group, and of the rest, is
+    summed too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -295,7 +326,9 @@ def profile_device(fn, top: int = 6, groups=None) -> dict:
         split = {label: 0.0 for label in groups}
         split["rest"] = 0.0
         for name, us in by_name.items():
-            label = next((k for k, sub in groups.items() if sub in name), "rest")
+            label = next((k for k, subs in groups.items()
+                          if any(sub in name for sub in
+                                 ((subs,) if isinstance(subs, str) else subs))), "rest")
             split[label] += us / 1e3
         out["device_ms_by_group"] = split
     return out
@@ -417,12 +450,12 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
 
 
 # ----------------------------------------------------------- train kernels
-def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False):
+def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False, T=T_TRAIN):
     """One train layer's operands at B_TRAIN rows: forward inputs, and the
     backward's dy streams (two per direction for the lower layer, one for
     the top) and final-state cotangents."""
     parts, lengths, w_ih, _, bias = layer_inputs(
-        B_TRAIN, T_TRAIN, E_parts, H, dtype, dev, seed, full_lengths)
+        B_TRAIN, T, E_parts, H, dtype, dev, seed, full_lengths)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
 
     def u(*shape):
@@ -434,21 +467,21 @@ def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False):
         # group's longest length: groups 0-2 at 0, 1 and T; 3-4 keep random
         # per-row values
         Bg = B_TRAIN // G_TRAIN
-        lengths[: 3 * Bg] = torch.tensor([0, 1, T_TRAIN], dtype=torch.int32,
+        lengths[: 3 * Bg] = torch.tensor([0, 1, T], dtype=torch.int32,
                                          device=dev).repeat_interleave(Bg)
     ny = 2 if len(E_parts) == 1 else 1
-    dyf = tuple(u(T_TRAIN, B_TRAIN, H).to(dtype) for _ in range(ny))
-    dyb = tuple(u(T_TRAIN, B_TRAIN, H).to(dtype) for _ in range(ny))
+    dyf = tuple(u(T, B_TRAIN, H).to(dtype) for _ in range(ny))
+    dyb = tuple(u(T, B_TRAIN, H).to(dtype) for _ in range(ny))
     return parts, lengths, w_ih, w_hh, bias, dyf, dyb, u(2, B_TRAIN, H), u(2, B_TRAIN, H)
 
 
-def train_layer_work(E, H, size, ny):
+def train_layer_work(E, H, size, ny, T=T_TRAIN, G=G_TRAIN):
     """(flops, bytes) of each train kernel for one layer at full lengths:
     multiply-adds x 2 over both directions, each input read once and each
     output written once."""
-    rows = 2 * B_TRAIN * T_TRAIN  # (direction, row, step) triples
-    stream = B_TRAIN * T_TRAIN * size
-    weights = 2 * 4 * H * (E + G_TRAIN * H) * size + 2 * 4 * H * 4
+    rows = 2 * B_TRAIN * T  # (direction, row, step) triples
+    stream = B_TRAIN * T * size
+    weights = 2 * 4 * H * (E + G * H) * size + 2 * 4 * H * 4
     fwd = (2 * rows * 4 * H * (E + H),
            stream * E + weights + B_TRAIN * 4 + 4 * stream * H + 2 * 2 * B_TRAIN * H * 4)
     # sweep: gate recompute 4H(E+H), dx 4H E, dh 4H H per (direction, row, step)
@@ -457,8 +490,35 @@ def train_layer_work(E, H, size, ny):
            + 2 * 2 * B_TRAIN * H * 4 + 2 * stream * E + 2 * stream * 4 * H)
     wgrad = (2 * rows * 4 * H * (E + H),
              2 * stream * 4 * H + stream * E + 2 * stream * H
-             + 2 * 4 * H * (E + G_TRAIN * H) * 4)
+             + 2 * 4 * H * (E + G * H) * 4)
     return {"fwd": fwd, "bwd": bwd, "wgrad": wgrad}
+
+
+def wgrad_library(dgc, parts, hs_f, hs_b, G):
+    """cuBLAS products of the wgrad kernel's operands (its yardstick):
+    dW_ih over all rows, dW_hh per weight group."""
+    from intrepppid_tpu_torch.ops.lstm import prev_states
+
+    T, B, H4 = dgc.shape[1:]
+    N, Bg = T * B, B // G
+    x = torch.cat(parts, dim=-1).reshape(N, -1)
+    d = dgc.reshape(2, N, H4).transpose(1, 2)
+    dg = dgc.view(2, T, G, Bg, H4).permute(0, 2, 4, 1, 3).reshape(2, G, H4, T * Bg)
+    hp = prev_states(hs_f, hs_b).view(2, T, G, Bg, H4 // 4).permute(0, 2, 1, 3, 4).reshape(
+        2, G, T * Bg, H4 // 4)
+    return lambda: (torch.matmul(d, x), torch.matmul(dg, hp))
+
+
+def add_bounds(t: dict, work: dict, dtype) -> None:
+    """For each kernel k with work[k] = (flops, bytes): the least time the
+    card could take (operations over the dtype's peak, bytes over the HBM
+    rate, whichever is larger) and which of the two it is."""
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    for k, (f, b) in work.items():
+        ops_ms, bytes_ms = f / peak * 1e3, b / PEAK_BYTES * 1e3
+        t[f"{k}_flops"], t[f"{k}_bytes"] = f, b
+        t[f"{k}_bound_ms"] = max(ops_ms, bytes_ms)
+        t[f"{k}_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def phase_train_kernel(dev) -> dict:
@@ -467,17 +527,11 @@ def phase_train_kernel(dev) -> dict:
         bidir_layer_bwd,
         bidir_layer_sweep,
         bidir_layer_wgrad,
-        prev_states,
     )
 
     layers = [([E_SERVE], G_TRAIN), ([H_SERVE, H_SERVE], 1)]
     H = H_SERVE
-
-    def err(got, want, tol):
-        a, b = got.float(), want.float()
-        e, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
-        return e, e <= tol * scale
-
+    err = rel_err
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (E_parts, G) in enumerate(layers):
@@ -534,27 +588,12 @@ def phase_train_kernel(dev) -> dict:
             t["bwd_plain_ms"] += time_ms(lambda: bidir_layer_sweep(*bwd_args), 1)
             t["wgrad_plain_ms"] += time_ms(
                 lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 2)
-            # cuBLAS products of the same operands (the wgrad kernel's
-            # yardstick): dW_ih over all rows, dW_hh per weight group
-            N, Bg = T_TRAIN * B_TRAIN, B_TRAIN // G
-            x = torch.cat(parts, dim=-1).reshape(N, -1)
-            d = dgc.reshape(2, N, 4 * H).transpose(1, 2)
-            dg = dgc.view(2, T_TRAIN, G, Bg, 4 * H).permute(0, 2, 4, 1, 3).reshape(
-                2, G, 4 * H, T_TRAIN * Bg)
-            hp = prev_states(hs_f, hs_b).view(2, T_TRAIN, G, Bg, H).permute(
-                0, 2, 1, 3, 4).reshape(2, G, T_TRAIN * Bg, H)
-            t["wgrad_library_ms"] += time_ms(lambda: (torch.matmul(d, x), torch.matmul(dg, hp)),
-                                             5)
+            t["wgrad_library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 5)
             for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
-            del parts, hs_f, hs_b, cs_f, cs_b, dgc, x, hp, d, dg, fwd_args, bwd_args
-        for k, (f, b) in work.items():
-            peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-            ops_ms, bytes_ms = f / peak * 1e3, b / PEAK_BYTES * 1e3
-            t[f"{k}_flops"], t[f"{k}_bytes"] = f, b
-            t[f"{k}_bound_ms"] = max(ops_ms, bytes_ms)
-            t[f"{k}_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+            del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args
+        add_bounds(t, work, dtype)
         timings[name] = t
 
     # cuDNN yardstick: the same two-layer bidirectional stack, f32, TF32 off,
@@ -602,7 +641,9 @@ def train_counters():
 
     return {"bilstm_layer_fwd_train": L.bilstm_layer_fwd_train,
             "bilstm_bwd": L.bilstm_bwd, "bilstm_wgrad": L.bilstm_wgrad,
-            "bilstm_layer_fwd": L.bilstm_layer_fwd}
+            "bilstm_layer_fwd": L.bilstm_layer_fwd, "bilstm_gates": L.bilstm_gates,
+            "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
+            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -650,9 +691,10 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     return out
 
 
-def train_grad_check(dev, pairs=8, T=64) -> dict:
+def train_grad_check(dev, pairs=8, T=64, **widths) -> dict:
     """One step's gradients on the card (the kernels) against the port's CPU
-    plain path: same seeded weights and batch, every dropout rate 0, f32.
+    plain path: same seeded weights and batch, every dropout rate 0, f32;
+    ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
     Tolerance 1e-4 x max(1, max|grad|) per parameter: f32 sums in another
     order, on the card and in the kernels, over T x 5 x pairs rows."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
@@ -661,7 +703,8 @@ def train_grad_check(dev, pairs=8, T=64) -> dict:
     grads = {}
     for device in (dev, torch.device("cpu")):
         net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
-                                 rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
+                                 rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0,
+                                 **widths)
         tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
         loss.backward()
@@ -676,8 +719,301 @@ def train_grad_check(dev, pairs=8, T=64) -> dict:
     if set(grads["cpu"]) != set(grads["cuda"]) or not any(
             n.startswith("encoder.lstm.") for n in grads["cuda"]):
         raise AssertionError("the card's step did not reach the same parameters")
-    return {"pairs": pairs, "T": T, "dtype": "float32", "params": len(errs),
+    return {"pairs": pairs, "T": T, "dtype": "float32", "params": len(errs), **widths,
             "max_abs_err": max(errs.values()), "tol": "1e-4 x max(1, max|grad|)"}
+
+
+# ------------------------------------------------------------ wide kernels
+def wide_layer_work(E, H, G, size, ny, T=T_TRAIN, B=B_TRAIN):
+    """(flops, bytes) of each wide-route kernel for one layer at full
+    lengths: multiply-adds x 2 over both directions; each input read once
+    and each output written once (xg and dgates are f32)."""
+    rows = 2 * B * T
+    stream = B * T * size
+    xg = rows * 4 * H * 4
+    state = B * 4 + 2 * 2 * B * H * 4
+    w_hh = 2 * G * 4 * H * H * size
+    return {
+        "gates": (2 * rows * 4 * H * E, stream * E + 2 * 4 * H * E * size + 2 * 4 * H * 4 + xg),
+        "fwd": (2 * rows * 4 * H * H, xg + w_hh + state + 4 * stream * H),
+        "fwd_eval": (2 * rows * 4 * H * H, xg + w_hh + state + 2 * stream * H),
+        # gate recompute and dh: 2 x 4H x H per (direction, row, step)
+        "lite": (2 * rows * 4 * H * 2 * H,
+                 xg + w_hh + state + 4 * stream * H + 2 * ny * stream * H + xg),
+        "wgrad": (2 * rows * 4 * H * (E + H),
+                  2 * stream * 4 * H + stream * E + 2 * stream * H + 2 * 4 * H * (E + G * H) * 4),
+    }
+
+
+def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
+    """The wide kernels and wgrad against their plain versions on one
+    layer's operands; each kernel takes the same inputs as its twin."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import (
+        bidir_layer_sweep_lite,
+        bidir_layer_wgrad,
+        bidir_recurrence,
+        input_gates,
+    )
+
+    parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+        E_parts, H, G, dtype, dev, seed, T=T)
+    tol = TOL[dtype]
+    res = {}
+    xg = L.bilstm_gates(parts, w_ih, bias, dtype)
+    res["xg"] = rel_err(xg, input_gates(parts, w_ih, bias, dtype), tol)
+    want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
+    res.update({f"train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
+    got = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype)
+    res.update({f"eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
+    del got
+    hs_f, hs_b, _, _, cs_f, cs_b = want
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
+    dgates = bidir_layer_sweep_lite(*args)
+    res["dgates"] = rel_err(L.bilstm_bwd_lite(*args), dgates, tol)
+    del xg, args
+    dgc = dgates.to(dtype)
+    del dgates
+    got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+    ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    res["dW_ih"], res["dW_hh"] = rel_err(got[0], ref[0], tol), rel_err(got[1], ref[1], tol)
+    torch.cuda.synchronize()
+    return res
+
+
+def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
+    """Row 4's shape on the resident route: the train forward, the sweep
+    and wgrad against the plain layer backward."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_bwd
+
+    parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+        E_parts, H, G, dtype, dev, seed, T=T)
+    tol = TOL[dtype]
+    want = L.bilstm_layer_fwd_plain(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
+    got = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
+    res = {n: rel_err(a, b, tol)
+           for n, a, b in zip(("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b"), got, want)}
+    hs_f, hs_b, _, _, cs_f, cs_b = want
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
+    dxf, dxb, dgc, dbias = L.bilstm_bwd(*args)
+    dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+    ref = bidir_layer_bwd(*args)
+    grads = list(dxf) + list(dxb) + [dw_ih, dw_hh, dbias]
+    refs = list(ref[0]) + list(ref[1]) + list(ref[2:])
+    gnames = ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
+              + ["dW_ih", "dW_hh", "dbias"])
+    res.update({n: rel_err(a, b, tol) for n, a, b in zip(gnames, grads, refs)})
+    torch.cuda.synchronize()
+    return res
+
+
+def row4_timings(dev, T=300) -> dict:
+    """Kernel row 4's function (a layer's backward with dx, dW_ih, dW_hh
+    and dbias) at its TPU shapes, f32, full lengths, 400 rows: the port's
+    layer backward on its route (``layer_bwd`` then ``bilstm_wgrad``), the
+    plain layer backward, and cuDNN's backward for input and weights
+    (training forward and backward, less the forward)."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_bwd
+
+    out = {}
+    for H in (128, 32):
+        t = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        work = [0.0, 0.0]
+        for i, (E_parts, G) in enumerate((([H], G_TRAIN), ([H, H], 1))):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                E_parts, H, G, torch.float32, dev, SEED + 50 + i, full_lengths=True, T=T)
+            hs_f, hs_b, _, _, cs_f, cs_b = L.layer_fwd(parts, lengths, w_ih, w_hh, bias,
+                                                       torch.float32, with_states=True)
+            args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
+                    torch.float32)
+
+            def kernels():
+                dgc = L.layer_bwd(*args)[2]
+                return L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+
+            t["kernel_ms"] += time_ms(kernels, 3)
+            t["plain_ms"] += time_ms(lambda: bidir_layer_bwd(*args), 1)
+            lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev)
+            x = (torch.rand(T, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).requires_grad_()
+            dy = torch.rand(T, B_TRAIN, 2 * H, device=dev) * 2 - 1
+            fwd_ms = time_ms(lambda: lstm(x), 3)
+            full_ms = time_ms(
+                lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 3)
+            t["library_ms"] += full_ms - fwd_ms
+            route = L.layer_route(E_parts, H, torch.float32)
+            if route == "wide":
+                w = wide_layer_work(sum(E_parts), H, G, 4, len(dyf), T=T)
+                keys = ("gates", "lite", "wgrad")
+            else:
+                w = train_layer_work(sum(E_parts), H, 4, len(dyf), T=T, G=G)
+                keys = ("bwd", "wgrad")
+            work[0] += sum(w[k][0] for k in keys)
+            work[1] += sum(w[k][1] for k in keys)
+            t[f"route_{i}"] = route
+            del parts, hs_f, hs_b, cs_f, cs_b, args, lstm, x, dy
+        add_bounds(t, {"bwd": work}, torch.float32)
+        out[f"H{H}"] = {"T": T, "layers": f"E={H} (5 groups) + E=2x{H}", **t}
+    return out
+
+
+def phase_wide_kernel(dev) -> dict:
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import (
+        bidir_layer_sweep_lite,
+        bidir_layer_wgrad,
+        bidir_recurrence,
+        input_gates,
+    )
+
+    H = E_SCALED
+    scaled = [([E_SCALED], G_TRAIN), ([H, H], 1)]
+    cases = [("wide", H, E_parts, G, T_TRAIN) for E_parts, G in scaled]
+    # row 4's shapes (lstm_pallas_layer.py:603): H = 128 routes wide, H = 32
+    # stays resident; layer 0 with grouped W_hh and a stacked layer of two parts
+    cases += [("wide", 128, E_parts, G, 300) for E_parts, G in (([128], G_TRAIN), ([128, 128], 1))]
+    cases += [("resident", 32, E_parts, G, 300) for E_parts, G in (([32], G_TRAIN), ([32, 32], 1))]
+    checks = []
+    for i, (route, h, E_parts, G, T) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            if L.layer_route(E_parts, h, dtype) != route:
+                raise AssertionError(f"H={h}, E_parts={E_parts} does not take the {route} route")
+            run = wide_layer_check if route == "wide" else resident_layer_check
+            res = run(E_parts, h, G, dtype, dev, SEED + 30 + i, T)
+            check = {"route": route, "B": B_TRAIN, "T": T, "H": h, "G": G, "E_parts": E_parts,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
+            checks.append(check)
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "wide_kernel", "failed": check})
+                raise AssertionError(f"a {route}-route kernel disagrees with its twin: {check}")
+
+    # times at full lengths, summed over layer 0 and one stacked layer
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        size = torch.empty((), dtype=dtype).element_size()
+        plain = dtype == torch.float32
+        t: dict = {}
+        work = {k: [0.0, 0.0] for k in ("gates", "fwd", "fwd_eval", "lite", "wgrad")}
+
+        def add(key, ms):
+            t[key] = t.get(key, 0.0) + ms
+
+        for i, (E_parts, G) in enumerate(scaled):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                E_parts, H, G, dtype, dev, SEED + 40 + i, full_lengths=True)
+            xg = L.bilstm_gates(parts, w_ih, bias, dtype)
+            hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
+            lite_args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
+            dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
+            add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
+            add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), 3))
+            add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, dtype), 3))
+            add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
+            add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+            if plain:
+                add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
+                add("fwd_plain_ms", time_ms(
+                    lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True), 1))
+                add("fwd_eval_plain_ms",
+                    time_ms(lambda: bidir_recurrence(xg, lengths, w_hh, dtype), 1))
+                add("lite_plain_ms", time_ms(lambda: bidir_layer_sweep_lite(*lite_args), 1))
+                add("wgrad_plain_ms",
+                    time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
+                # yardsticks the port never calls: one cuBLAS call for the
+                # input gates of both directions, cuBLAS for the weight
+                # gradients, cuDNN for the recurrence and the sweep
+                x = torch.cat(parts, dim=-1).reshape(T_TRAIN * B_TRAIN, -1)
+                w_t, b = w_ih.reshape(8 * H, -1).t(), bias.reshape(-1)
+                add("gates_library_ms", time_ms(lambda: torch.addmm(b, x, w_t), 3))
+                add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
+                del x, w_t
+                lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev)
+                xl = (torch.rand(T_TRAIN, B_TRAIN, sum(E_parts), device=dev) * 2 - 1)
+                xl.requires_grad_()
+                dy = torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1
+                fwd_ms = time_ms(lambda: lstm(xl), 3)
+                with torch.inference_mode():
+                    add("fwd_eval_library_ms", time_ms(lambda: lstm(xl), 3))
+                for prm in lstm.parameters():
+                    prm.requires_grad_(False)
+                data_ms = time_ms(lambda: torch.autograd.grad(lstm(xl)[0], [xl], dy), 3)
+                add("fwd_library_ms", fwd_ms)
+                add("lite_library_ms", data_ms - fwd_ms)
+                del lstm, xl, dy
+            for k, (f, b) in wide_layer_work(sum(E_parts), H, G, size, len(dyf)).items():
+                work[k][0] += f
+                work[k][1] += b
+            del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args
+        add_bounds(t, work, dtype)
+        timings[name] = t
+    timings["row4_float32"] = row4_timings(dev)
+    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
+                      for k, v in L._cluster_counts.items()}
+    out = {"phase": "wide_kernel", "checks": checks, "timings": timings,
+           "max_active_clusters": cluster_counts,
+           "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
+                     "layers": "E=256 (grouped W_hh) + E=2x256"}}
+    emit(out)
+    return out
+
+
+def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(SEED + 2)
+    net = intrepppid_network(steps_per_epoch=100, embedding_size=E_SCALED,
+                             rnn_num_layers=LAYERS_SCALED, compute_dtype=torch.bfloat16,
+                             optimizer_type="ranger21_xx", device=dev, seed=SEED)
+    trainer = Trainer(net, seed=SEED)
+    batches = [quintuplet_batch(rng, PAIRS_TRAIN, T_TRAIN) for _ in range(3)]
+    counters = train_counters()
+    # the main path: the train steps and the eval step below
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for i in range(warmup + steps):
+        t = time.perf_counter()
+        aux = trainer.train_step(batches[i % len(batches)])
+        losses.append(aux["loss"].item())
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    eval_loss = trainer.eval_step(batches[0])["loss"].item()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    breakdown = profile_device(
+        lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
+        groups={"gates": "bilstm_gates_kernel", "fwd_wide": "bilstm_fwd_wide_kernel",
+                "lite": "bilstm_bwd_lite_kernel", "wgrad": "bilstm_wgrad_kernel",
+                "gemm": ("gemm", "nvjet", "xmma")})
+    if not all(np.isfinite(losses + [eval_loss])):
+        raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
+    missing = [n for n in ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                           "bilstm_bwd_lite", "bilstm_wgrad") if launches[n] <= 0]
+    resident = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_layer_fwd")
+                if launches[n] != 0]
+    if missing or resident:
+        raise AssertionError(f"the scaled steps missed {missing} or ran the resident {resident}")
+    del trainer, net
+    grad_check = train_grad_check(dev, embedding_size=E_SCALED, rnn_num_layers=LAYERS_SCALED)
+    median = float(np.median(step_ms))
+    out = {"phase": "train_scaled", "embedding": E_SCALED, "layers": LAYERS_SCALED,
+           "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16", "optimizer": "ranger21_xx",
+           "dropout": 0.3, "step_ms": step_ms, "median_step_ms": median,
+           "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
+           "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
+           "peak_memory_gib": peak_gib, "step_profile": breakdown, "grad_check": grad_check}
+    emit(out)
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -699,6 +1035,8 @@ def main() -> int:
     serve = phase_serve(dev)
     tk = phase_train_kernel(dev)
     train = phase_train(dev)
+    wk = phase_wide_kernel(dev)
+    scaled = phase_train_scaled(dev)
 
     f32 = kern["timings"]["float32"]
     bound_ops = f32["flops"] / PEAK_F32_FLOPS * 1e3
@@ -746,6 +1084,36 @@ def main() -> int:
             "bound_by": t32[f"{key}_bound_by"],
             "library_ms": library[key],
             "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64",
+        })
+    w32 = wk["timings"]["float32"]
+    wide_errs = {
+        "gates": ("xg",),
+        "fwd": tuple(f"train_{n}" for n in ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")),
+        "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
+        "lite": ("dgates",),
+    }
+    for key, name, source, replaces in (
+        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285"),
+        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
+        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
+        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{source}",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": scaled["launches"][name],
+            "max_abs_err": max(v for c in wk["checks"] if c["dtype"] == "float32"
+                               and c["route"] == "wide"
+                               for n, v in c["max_abs_err"].items() if n in wide_errs[key]),
+            "ms": w32[f"{key}_ms"],
+            "plain_ms": w32[f"{key}_plain_ms"],
+            "bound_ms": w32[f"{key}_bound_ms"],
+            "bound_by": w32[f"{key}_bound_by"],
+            "library_ms": w32[f"{key}_library_ms"],
+            "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, "
+                    "400 rows, T=1500, H=256",
         })
     emit({"kernels": kernels})
     smi = subprocess.run(

@@ -1,12 +1,16 @@
 // Helpers shared by the bidirectional-LSTM kernels (bilstm_fwd.cu,
-// bilstm_bwd.cu, bilstm_wgrad.cu): compute-dtype conversions, 16-byte
-// stream chunks widened to f32 in shared memory, and the per-unit
-// four-gate product over weights resident in shared memory.
+// bilstm_bwd.cu, bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu,
+// bilstm_bwd_lite.cu): compute-dtype conversions, 16-byte stream chunks
+// widened to f32 in shared memory, the per-unit four-gate product over
+// weights resident in shared memory, and the launch dispatch of the wide
+// (cluster) kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace bilstm {
 
@@ -96,6 +100,98 @@ __device__ __forceinline__ void load_weight(D* dst, const T* src, int H, int K, 
     const int g = idx / K, k = idx - g * K;
     dst[(size_t)k * ws + (g % H) * 4 + g / H] = from_f32<D>(to_f32(src[idx]));
   }
+}
+
+// Load 8 consecutive elements (16 bytes of bf16, 32 of f32) as f32.
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The wide kernels (bilstm_fwd_wide.cu, bilstm_bwd_lite.cu) split one row
+// tile's hidden units over a cluster of kWideCluster blocks of H threads
+// (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
+// of kWideRows.
+constexpr int kWideCluster = 8;
+constexpr int kWideMaxThreads = 256;
+constexpr int kWideRowsMask = (1 << 2) | (1 << 4) | (1 << 7) | (1 << 10);
+
+// Call f(std::integral_constant<int, R>, T{}) for dtype code (0: float, 1:
+// bfloat16) and R in kWideRows; cudaErrorInvalidValue for anything else.
+template <typename F>
+int dispatch_wide(int dtype, int rows, F&& f) {
+  auto by_rows = [&](auto t) -> int {
+    switch (rows) {
+      case 2: return f(std::integral_constant<int, 2>{}, t);
+      case 4: return f(std::integral_constant<int, 4>{}, t);
+      case 7: return f(std::integral_constant<int, 7>{}, t);
+      case 10: return f(std::integral_constant<int, 10>{}, t);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return by_rows(float{});
+  if (dtype == 1) return by_rows(__nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launch `kernel` over grid (tiles * kWideCluster, 2) in clusters of
+// kWideCluster blocks along x, H threads each, `smem` bytes of dynamic
+// shared memory. With `max_clusters` non-null, only report how many such
+// clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
+template <typename... Params, typename... Args>
+int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStream_t stream,
+                int* max_clusters, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWideCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * kWideCluster, 2, 1);
+  cfg.blockDim = dim3(H, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) {
+    cfg.gridDim = dim3(kWideCluster, 1, 1);
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters, (void*)kernel, &cfg);
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// A cluster barrier without release / acquire ordering: enough where it
+// only has to keep a block from writing shared memory that another block
+// of the cluster may still be reading (the reads have returned, since
+// their values were used), and cheaper than cluster.sync().
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\tbarrier.cluster.wait.aligned;"
+               ::: "memory");
+}
+
+// The global row of local row `rl` of row tile `tile` when each of the G
+// weight groups (Bg = B / G rows) is cut into ceil(Bg / BR) tiles of BR
+// rows, so no tile spans two groups; -1 past the group's end.
+__device__ __forceinline__ int tile_row(int tile, int rl, int BR, int Bg) {
+  const int tpg = (Bg + BR - 1) / BR;
+  const int in_group = (tile % tpg) * BR + rl;
+  return in_group < Bg ? (tile / tpg) * Bg + in_group : -1;
 }
 
 }  // namespace bilstm

@@ -55,23 +55,6 @@ struct Sources {
   int ntiles[3];       // 64-column tiles per source
 };
 
-// Load 8 consecutive elements (16 bytes of bf16, 32 of f32) as f32.
-__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // grid (splits, 4H/64 * sum(ntiles), 2 * G), block kThreads.
 // partial: (splits, 2, G, 4H, Wtot) f32, Wtot = E0 + E1 + H.
 template <typename T>

@@ -4,19 +4,26 @@ The plain PyTorch versions of the layer kernels live here: the CPU path and
 the references the CUDA kernels (``ops/lstm_cuda.py``) are held against on
 the card.
 
-* ``bidir_layer`` — one layer's forward; with ``with_states`` it also
-  returns the cell streams, as the train variant of the TPU forward kernel
-  does (``lstm_pallas_packed.py:392``, ``with_states=True``);
-* ``bidir_layer_sweep`` and ``bidir_layer_wgrad`` — the two halves of the
-  layer's backward (``lstm_pallas_packed.py:750 _bwd_pallas_packed``): the
-  reverse-time sweep, and the weight-gradient products over its gate
-  cotangent stream; ``bidir_layer_bwd`` runs both.
+* ``input_gates`` — the input projection of both directions, f32 (the
+  gates kernel; the TPU kernels form it in their body, ``_xg2``);
+* ``bidir_recurrence`` — the recurrence over those gates; with
+  ``with_states`` it also returns the cell streams, as the train variant of
+  the TPU forward kernel does (``with_states=True``). ``bidir_layer`` is
+  the two together: one layer's forward;
+* ``bidir_layer_sweep_lite`` — the reverse-time sweep over the gate
+  streams, returning the masked f32 gate cotangents, as the lite backward
+  (``lstm_pallas_layer.py:723 _bwd_pallas_lite``) does; ``input_grads``
+  forms the input-side gradients from them;
+* ``bidir_layer_sweep`` (the two above) and ``bidir_layer_wgrad`` — the two
+  halves of the layer's backward (``lstm_pallas_packed.py:750
+  _bwd_pallas_packed``): the sweep, and the weight-gradient products over
+  its gate cotangent stream; ``bidir_layer_bwd`` runs both.
 
 ``bilstm`` runs the stack: under autograd through ``ops/lstm_stack.py``
 (one ``torch.autograd.Function`` over the whole stack, in the role of
 ``pallas_bilstm_stack``), otherwise layer by layer through
-``lstm_cuda.bilstm_layer_fwd``. Both take these plain versions for CPU
-tensors and the kernels for CUDA tensors.
+``lstm_cuda.layer_fwd``. Both take these plain versions for CPU tensors
+and the kernels for CUDA tensors.
 
 Semantics, shared by every version and by the JAX package:
 
@@ -24,8 +31,9 @@ Semantics, shared by every version and by the JAX package:
   ``w_hh (2, 4H, H)``, or grouped ``w_hh (2, G, 4H, H)`` with the batch
   group-major and ``B % G == 0`` (one weight-dropped matrix per encoder
   call); the bias is ``b_ih + b_hh`` summed in f32;
-* matmul operands are in the compute dtype and accumulate in f32; h and c
-  are f32; the streams ``hs``/``cs`` are stored in the compute dtype;
+* matmul operands are in the compute dtype and accumulate in f32; the
+  input gates, h and c are f32; the streams ``hs``/``cs`` are stored in the
+  compute dtype;
 * a position updates the state iff ``pos < length`` for both directions:
   the reverse direction stays at zero until position ``length - 1``, rows
   of length 0 keep zero state, and the streams hold the frozen state past
@@ -33,6 +41,8 @@ Semantics, shared by every version and by the JAX package:
 * the backward recomputes the gates from x and the stored ``h_prev`` /
   ``c_prev`` (``c_prev`` rounded to the compute dtype, as the TPU kernel
   stores it); ``dh`` and ``dc`` pass through frozen positions unchanged;
+  the gate cotangents are f32, rounded to the compute dtype for ``dh``,
+  dx and the weight gradients, and summed unrounded for ``dbias``;
 * the layer above takes the two directions as two feature parts, so the
   2H concat is only built for the returned ``y``; the backward returns the
   input cotangent per part and per direction, unsummed.
@@ -70,11 +80,13 @@ def _valid(T: int, lengths: torch.Tensor, dev) -> torch.Tensor:
     ).unsqueeze(-1)
 
 
-def _input_gates(x_parts, w_ih, bias, compute_dtype) -> torch.Tensor:
-    """Hoisted input projection for both directions, ``(T, 2, B, 4H)`` f32."""
+def input_gates(x_parts, w_ih, bias, compute_dtype) -> torch.Tensor:
+    """The input projection of both directions, ``xg (2, T, B, 4H)`` f32:
+    ``xg[d] = concat(x_parts) @ w_ih[d]^T + bias[d]``, compute-dtype
+    operands, f32 sums."""
     x = torch.cat([_operand(p, compute_dtype) for p in x_parts], dim=-1)
-    xg = torch.einsum("tbe,dge->tdbg", x, _operand(w_ih, compute_dtype))
-    return xg + bias.float()[None, :, None, :]
+    xg = torch.einsum("tbe,dge->dtbg", x, _operand(w_ih, compute_dtype))
+    return (xg + bias.float()[:, None, None, :]).contiguous()
 
 
 def _recurrent(h: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
@@ -84,36 +96,35 @@ def _recurrent(h: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h.reshape(D, G, B // G, H), w_hh_t).reshape(D, B, -1)
 
 
-def bidir_layer(
-    x_parts: Sequence[torch.Tensor],
+def _check_groups(B: int, w_hh: torch.Tensor) -> int:
+    G = w_hh.shape[1]
+    if B % G:
+        raise ValueError(f"batch {B} is not a multiple of the {G} weight groups")
+    return G
+
+
+def bidir_recurrence(
+    xg: torch.Tensor,
     lengths: torch.Tensor,
-    w_ih: torch.Tensor,
     w_hh: torch.Tensor,
-    bias: torch.Tensor,
     compute_dtype: torch.dtype,
     with_states: bool = False,
 ) -> Streams:
-    """One bidirectional layer in plain PyTorch (differentiable by autograd).
+    """The recurrence of one bidirectional layer over its input gates.
 
-    :param x_parts: 1 or 2 time-major ``(T, B, E_i)`` tensors whose feature
-        concat is the layer input.
+    :param xg: ``(2, T, B, 4H)`` f32 input gates (``input_gates``).
     :param lengths: ``(B,)`` int — positions ``>= length`` freeze the state.
-    :param w_ih: ``(2, 4H, E)``; ``w_hh``: ``(2, 4H, H)`` or ``(2, G, 4H,
-        H)``; ``bias``: ``(2, 4H)`` f32; direction 0 forward, 1 reverse.
+    :param w_hh: ``(2, 4H, H)`` or ``(2, G, 4H, H)``; direction 0 forward,
+        1 reverse.
     :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype`` and ``hn, cn
         (2, B, H)`` f32; with ``with_states`` also ``cs_f, cs_b (T, B, H)``
         in ``compute_dtype``.
     """
-    T, B = x_parts[0].shape[:2]
-    H = w_hh.shape[-1]
-    dev = x_parts[0].device
+    _, T, B, H4 = xg.shape
+    H = H4 // 4
+    dev = xg.device
     w_hh = grouped_w_hh(w_hh)
-    if B % w_hh.shape[1]:
-        raise ValueError(f"batch {B} is not a multiple of the {w_hh.shape[1]} weight groups")
-
-    xg = _input_gates(x_parts, w_ih, bias, compute_dtype)
-    # the reverse direction's step s reads position T-1-s
-    xg[:, 1] = xg[:, 1].flip(0)
+    _check_groups(B, w_hh)
     w_hh_t = _operand(w_hh, compute_dtype).transpose(-1, -2)  # (2, G, H, 4H)
     valid = _valid(T, lengths, dev)
 
@@ -122,7 +133,9 @@ def bidir_layer(
     hs = torch.empty(2, T, B, H, dtype=compute_dtype, device=dev)
     cs = torch.empty_like(hs) if with_states else None
     for s in range(T):
-        gates = xg[s] + _recurrent(_operand(h, compute_dtype), w_hh_t)
+        # the reverse direction's step s reads position T-1-s
+        gates = torch.stack([xg[0, s], xg[1, T - 1 - s]]) + _recurrent(
+            _operand(h, compute_dtype), w_hh_t)
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -138,12 +151,138 @@ def bidir_layer(
     return hs[0], hs[1], h, c
 
 
+def bidir_layer(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+    with_states: bool = False,
+) -> Streams:
+    """One bidirectional layer in plain PyTorch (differentiable by autograd):
+    ``bidir_recurrence`` over ``input_gates``.
+
+    :param x_parts: 1 or 2 time-major ``(T, B, E_i)`` tensors whose feature
+        concat is the layer input.
+    :param w_ih: ``(2, 4H, E)``; ``bias``: ``(2, 4H)`` f32; the other
+        operands and the returns as for ``bidir_recurrence``.
+    """
+    return bidir_recurrence(input_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
+                            compute_dtype, with_states)
+
+
 def prev_states(s_f: torch.Tensor, s_b: torch.Tensor) -> torch.Tensor:
     """``(2, T, B, H)`` state before each position: the forward direction's
     at position p is ``s_f[p-1]`` (zero at p = 0), the reverse direction's
     ``s_b[p+1]`` (zero at p = T-1)."""
     zero = torch.zeros_like(s_f[:1])
     return torch.stack([torch.cat([zero, s_f[:-1]]), torch.cat([s_b[1:], zero])])
+
+
+def bidir_layer_sweep_lite(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The backward sweep of one layer over its input gates: an explicit
+    reverse loop over time.
+
+    Each direction walks its positions in the reverse of its forward order.
+    Per step it recomputes the gates as ``xg + h_prev @ W_hh^T`` from the
+    stored previous state, adds the dy streams, forms the masked gate
+    cotangent ``dgates`` (f32), and carries ``dh = dgc @ W_hh`` back with
+    ``dgc`` the cotangent rounded to the compute dtype.
+
+    :param xg: ``(2, T, B, 4H)`` f32 input gates, as the forward used them.
+    :param dyf, dyb: 0, 1 or 2 unsummed ``(T, B, H)`` cotangent streams of
+        ``hs_f`` and ``hs_b`` (summed in f32 here).
+    :param dhn, dcn: ``(2, B, H)`` f32 cotangents of the final states, or
+        None for zero.
+    :returns: ``dgates (2, T, B, 4H)`` f32, zero at masked positions.
+    """
+    _, T, B, H4 = xg.shape
+    H = H4 // 4
+    dev = xg.device
+    w_hh_c = _operand(grouped_w_hh(w_hh), compute_dtype)  # (2, G, 4H, H)
+    G = _check_groups(B, w_hh_c)
+    w_hh_t = w_hh_c.transpose(-1, -2)
+    hp = prev_states(hs_f, hs_b).float()  # (2, T, B, H), compute-dtype values
+    cp = prev_states(cs_f, cs_b).float()
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+
+    def dy_sum(streams, pos):
+        out = torch.zeros(B, H, dtype=torch.float32, device=dev)
+        for st in streams:
+            out = out + st[pos].float()
+        return out
+
+    dh = torch.zeros(2, B, H, device=dev) if dhn is None else dhn.float().clone()
+    dc = torch.zeros(2, B, H, device=dev) if dcn is None else dcn.float().clone()
+    dgates_all = torch.empty(2, T, B, H4, dtype=torch.float32, device=dev)
+    for s in range(T):
+        # the forward direction's sweep ran position s at step s, so its
+        # backward takes position T-1-s now; the reverse direction's the other way
+        pos = (T - 1 - s, s)
+        h_prev = torch.stack([hp[0, pos[0]], hp[1, pos[1]]])
+        c_prev = torch.stack([cp[0, pos[0]], cp[1, pos[1]]])
+        dy = torch.stack([dy_sum(dyf, pos[0]), dy_sum(dyb, pos[1])])
+        m = torch.stack([pos[0] < lengths, pos[1] < lengths]).unsqueeze(-1).float()
+
+        gates = torch.stack([xg[0, pos[0]], xg[1, pos[1]]]) + _recurrent(h_prev, w_hh_t)
+        ig = torch.sigmoid(gates[..., :H])
+        f = torch.sigmoid(gates[..., H:2 * H])
+        gg = torch.tanh(gates[..., 2 * H:3 * H])
+        o = torch.sigmoid(gates[..., 3 * H:])
+        c_new = f * c_prev + ig * gg
+        dh = dh + dy
+        tc = torch.tanh(c_new)
+        dc_t = dc + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([
+            dc_t * gg * ig * (1.0 - ig) * m,
+            dc_t * c_prev * f * (1.0 - f) * m,
+            dc_t * ig * (1.0 - gg * gg) * m,
+            dh * tc * o * (1.0 - o) * m,
+        ], dim=-1)  # (2, B, 4H) f32
+        dgates_all[0, pos[0]] = dgates[0]
+        dgates_all[1, pos[1]] = dgates[1]
+        dgc = _operand(dgates, compute_dtype)
+        dhp = torch.matmul(dgc.reshape(2, G, B // G, H4), w_hh_c).reshape(2, B, H)
+        dh = dhp + dh * (1.0 - m)
+        dc = dc_t * f * m + dc * (1.0 - m)
+    return dgates_all
+
+
+def input_grads(
+    dgates: torch.Tensor,
+    w_ih: torch.Tensor,
+    E_parts: Sequence[int],
+) -> Tuple[Streams, Streams, torch.Tensor, torch.Tensor]:
+    """The input-side gradients of a layer from its f32 gate cotangents:
+    ``dgc = dgates`` rounded to ``w_ih``'s dtype (the compute dtype),
+    ``dx[d] = dgc[d] @ w_ih[d]`` per input part and direction (compute-dtype
+    products, in the compute dtype, as the JAX lite mode's XLA GEMMs,
+    ``lstm_pallas_layer.py:1076-1090``), and ``dbias`` the f32 sum of the
+    unrounded ``dgates`` (``:1109-1114``).
+
+    :returns: ``(dxf, dxb, dgc (2, T, B, 4H), dbias (2, 4H))``, ``dxf``/
+        ``dxb`` one ``(T, B, E_i)`` tensor per part.
+    """
+    dbias = dgates.sum(dim=(1, 2))
+    dgc = dgates.to(w_ih.dtype)
+    dx = [torch.matmul(dgc[d], w_ih[d]) for d in range(2)]  # (T, B, E) each
+    dxf = tuple(t.contiguous() for t in dx[0].split(list(E_parts), dim=-1))
+    dxb = tuple(t.contiguous() for t in dx[1].split(list(E_parts), dim=-1))
+    return dxf, dxb, dgc, dbias
 
 
 def bidir_layer_sweep(
@@ -162,89 +301,20 @@ def bidir_layer_sweep(
     dcn: Optional[torch.Tensor],
     compute_dtype: torch.dtype,
 ) -> Tuple[Streams, Streams, torch.Tensor, torch.Tensor]:
-    """The backward sweep of one layer: an explicit reverse loop over time.
+    """The backward sweep of one layer from its inputs: the gates
+    recomputed by ``input_gates``, ``bidir_layer_sweep_lite`` over them,
+    then ``input_grads``.
 
-    Each direction walks its positions in the reverse of its forward order.
-    Per step it recomputes the gates from x and the stored previous state,
-    adds the dy streams, forms the masked gate cotangent ``dgates`` (f32),
-    rounds it to ``dgc`` in the compute dtype, emits ``dx = dgc @ W_ih``
-    per part and per direction, and carries ``dh = dgc @ W_hh`` back.
-
-    :param dyf, dyb: 0, 1 or 2 unsummed ``(T, B, H)`` cotangent streams of
-        ``hs_f`` and ``hs_b`` (summed in f32 here).
-    :param dhn, dcn: ``(2, B, H)`` f32 cotangents of the final states, or
-        None for zero.
     :returns: ``(dxf, dxb, dgc, dbias)``: ``dxf``/``dxb`` one ``(T, B,
         E_i)`` tensor per input part in the compute dtype (the forward and
         the reverse direction's contributions), ``dgc (2, T, B, 4H)`` in the
         compute dtype (the weight-gradient products' operand), and ``dbias
-        (2, 4H)`` f32, summed from the unrounded ``dgates``.
+        (2, 4H)`` f32, summed from the unrounded gate cotangents.
     """
-    T, B = x_parts[0].shape[:2]
-    H = hs_f.shape[-1]
-    dev = x_parts[0].device
-    w_hh = grouped_w_hh(w_hh)
-    G = w_hh.shape[1]
-
-    xg = _input_gates(x_parts, w_ih, bias, compute_dtype)  # (T, 2, B, 4H)
-    w_ih_c = _operand(w_ih, compute_dtype)  # (2, 4H, E)
-    w_hh_c = _operand(w_hh, compute_dtype)  # (2, G, 4H, H)
-    hp = prev_states(hs_f, hs_b).float()  # (2, T, B, H), compute-dtype values
-    cp = prev_states(cs_f, cs_b).float()
-    lengths = lengths.to(device=dev, dtype=torch.int64)
-
-    def dy_sum(streams, pos):
-        out = torch.zeros(B, H, dtype=torch.float32, device=dev)
-        for st in streams:
-            out = out + st[pos].float()
-        return out
-
-    dh = torch.zeros(2, B, H, device=dev) if dhn is None else dhn.float().clone()
-    dc = torch.zeros(2, B, H, device=dev) if dcn is None else dcn.float().clone()
-    E = w_ih.shape[-1]
-    dx = torch.empty(2, T, B, E, dtype=compute_dtype, device=dev)
-    dgc_all = torch.empty(2, T, B, 4 * H, dtype=compute_dtype, device=dev)
-    dbias = torch.zeros(2, 4 * H, dtype=torch.float32, device=dev)
-    for s in range(T):
-        # the forward direction's sweep ran position s at step s, so its
-        # backward takes position T-1-s now; the reverse direction's the other way
-        pos = (T - 1 - s, s)
-        x_t = torch.stack([xg[pos[0], 0], xg[pos[1], 1]])  # (2, B, 4H)
-        h_prev = torch.stack([hp[0, pos[0]], hp[1, pos[1]]])
-        c_prev = torch.stack([cp[0, pos[0]], cp[1, pos[1]]])
-        dy = torch.stack([dy_sum(dyf, pos[0]), dy_sum(dyb, pos[1])])
-        m = torch.stack([pos[0] < lengths, pos[1] < lengths]).unsqueeze(-1).float()
-
-        gates = x_t + _recurrent(h_prev, w_hh_c.transpose(-1, -2))
-        ig = torch.sigmoid(gates[..., :H])
-        f = torch.sigmoid(gates[..., H:2 * H])
-        gg = torch.tanh(gates[..., 2 * H:3 * H])
-        o = torch.sigmoid(gates[..., 3 * H:])
-        c_new = f * c_prev + ig * gg
-        dh = dh + dy
-        tc = torch.tanh(c_new)
-        dc_t = dc + dh * o * (1.0 - tc * tc)
-        dgates = torch.cat([
-            dc_t * gg * ig * (1.0 - ig) * m,
-            dc_t * c_prev * f * (1.0 - f) * m,
-            dc_t * ig * (1.0 - gg * gg) * m,
-            dh * tc * o * (1.0 - o) * m,
-        ], dim=-1)  # (2, B, 4H) f32
-        dbias += dgates.sum(dim=1)
-        dgc = _operand(dgates, compute_dtype)
-        dgc_all[0, pos[0]] = dgc[0]
-        dgc_all[1, pos[1]] = dgc[1]
-        dx_t = torch.bmm(dgc, w_ih_c)  # (2, B, E)
-        dx[0, pos[0]] = dx_t[0]
-        dx[1, pos[1]] = dx_t[1]
-        dhp = torch.matmul(dgc.reshape(2, G, B // G, 4 * H), w_hh_c).reshape(2, B, H)
-        dh = dhp + dh * (1.0 - m)
-        dc = dc_t * f * m + dc * (1.0 - m)
-
-    splits = [p.shape[-1] for p in x_parts]
-    dxf = tuple(t.contiguous() for t in dx[0].split(splits, dim=-1))
-    dxb = tuple(t.contiguous() for t in dx[1].split(splits, dim=-1))
-    return dxf, dxb, dgc_all, dbias
+    dgates = bidir_layer_sweep_lite(
+        input_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
+        hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+    return input_grads(dgates, w_ih.to(compute_dtype), [p.shape[-1] for p in x_parts])
 
 
 def bidir_layer_wgrad(
@@ -320,9 +390,10 @@ def bilstm(
 
     With grad mode on and any operand requiring grad, the stack runs as one
     ``BiLSTMStack`` autograd unit (``ops/lstm_stack.py``); otherwise as the
-    eval forward, layer by layer.
+    eval forward, layer by layer, each on the route its shapes give it
+    (``lstm_cuda.layer_route``).
     """
-    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd
+    from intrepppid_tpu_torch.ops.lstm_cuda import layer_fwd
     from intrepppid_tpu_torch.ops.lstm_stack import bilstm_stack
 
     B, T, _ = x.shape
@@ -340,9 +411,7 @@ def bilstm(
     hns, cns = [], []
     for lp in layers:
         w_ih, w_hh, bias = stack_layer_weights(lp, compute_dtype)
-        hs_f, hs_b, hn, cn = bilstm_layer_fwd(
-            parts, lengths, w_ih, w_hh, bias, compute_dtype
-        )
+        hs_f, hs_b, hn, cn = layer_fwd(parts, lengths, w_ih, w_hh, bias, compute_dtype)
         parts = (hs_f, hs_b)
         hns.append(hn)
         cns.append(cn)

@@ -1,30 +1,56 @@
 """The bidirectional LSTM layer's hand-written CUDA kernels and wrappers.
 
-* ``bilstm_layer_fwd`` (eval) and ``bilstm_layer_fwd_train`` (train: also
-  the cell streams) launch ``csrc/bilstm_fwd.cu``, the counterpart of
-  ``intrepppid_tpu/ops/lstm_pallas_packed.py:392 _fwd_pallas_packed``
-  (``with_states`` False / True; used at 2H == 128) and of
-  ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` (other
-  widths). Plain twin: ``ops/lstm.py:bidir_layer``.
-* ``bilstm_bwd`` launches ``csrc/bilstm_bwd.cu``, the reverse-time sweep of
-  ``lstm_pallas_packed.py:750 _bwd_pallas_packed``. Plain twin:
-  ``ops/lstm.py:bidir_layer_sweep``.
-* ``bilstm_wgrad`` launches ``csrc/bilstm_wgrad.cu``, that kernel's weight-
-  gradient products. Plain twin: ``ops/lstm.py:bidir_layer_wgrad``.
+Each layer takes one of two routes, fixed by its shapes and dtype before
+any launch (``layer_route``), as the JAX package's ``pick_plan`` picks its
+packed, fused or lite kernels:
 
-Each source's header says what bounds it on the card and how it is laid
-out. For a CPU tensor a wrapper runs its plain twin. For a CUDA tensor it
-launches the kernel, or raises for a shape, dtype or layout the kernel does
-not take; it never falls back. Where a weight group's rows are not a whole
-number of row tiles, the wrapper pads each group with length-0 rows and
-slices them off (the JAX package does the same, ``ops/lstm.py:241-260``).
-Each wrapper's ``.launches`` counts its kernel launches.
+* **resident** -- where one block's shared memory holds the layer's
+  weights (``launch_plan`` and ``bwd_launch_plan`` fit):
+
+  * ``bilstm_layer_fwd`` (eval) and ``bilstm_layer_fwd_train`` (train: also
+    the cell streams) launch ``csrc/bilstm_fwd.cu``, the counterpart of
+    ``intrepppid_tpu/ops/lstm_pallas_packed.py:392 _fwd_pallas_packed``
+    (``with_states`` False / True; 2H == 128) and of
+    ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` at the
+    other widths that fit. Plain twin: ``ops/lstm.py:bidir_layer``.
+  * ``bilstm_bwd`` launches ``csrc/bilstm_bwd.cu``, the reverse-time sweep
+    of ``lstm_pallas_packed.py:750 _bwd_pallas_packed`` and of
+    ``lstm_pallas_layer.py:603 _bwd_pallas``. Plain twin:
+    ``ops/lstm.py:bidir_layer_sweep``.
+
+* **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
+
+  * ``bilstm_gates`` launches ``csrc/bilstm_gates.cu``, the input
+    projection those TPU kernels form in their body (``_xg2``). Plain twin:
+    ``ops/lstm.py:input_gates``.
+  * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` launch
+    ``csrc/bilstm_fwd_wide.cu``, the recurrence over those gates with
+    ``W_hh`` split over a cluster of 8 blocks. With ``bilstm_gates``, the
+    counterpart of ``_fwd_pallas`` at these widths. Plain twin:
+    ``ops/lstm.py:bidir_recurrence``.
+  * ``bilstm_bwd_lite`` launches ``csrc/bilstm_bwd_lite.cu``, the sweep
+    over the gate streams of ``lstm_pallas_layer.py:723 _bwd_pallas_lite``
+    (f32 gate cotangents out). Plain twin:
+    ``ops/lstm.py:bidir_layer_sweep_lite``.
+
+* both routes: ``bilstm_wgrad`` launches ``csrc/bilstm_wgrad.cu``, the
+  weight-gradient products. Plain twin: ``ops/lstm.py:bidir_layer_wgrad``.
+
+``layer_fwd`` and ``layer_bwd`` run one layer on its route. Each source's
+header says what bounds it on the card and how it is laid out. For a CPU
+tensor a wrapper runs its plain twin, so the CPU takes the same routes. For
+a CUDA tensor it launches the kernel, or raises for a shape, dtype or
+layout the kernel does not take; it never falls back. Where a weight
+group's rows are not a whole number of row tiles, the resident wrappers pad
+each group with length-0 rows and slice them off (the JAX package does the
+same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
+own tiles. Each wrapper's ``.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,8 +58,12 @@ from intrepppid_tpu_torch.ops import _build
 from intrepppid_tpu_torch.ops.lstm import (
     bidir_layer,
     bidir_layer_sweep,
+    bidir_layer_sweep_lite,
     bidir_layer_wgrad,
+    bidir_recurrence,
     grouped_w_hh,
+    input_gates,
+    input_grads,
 )
 
 bilstm_layer_fwd_plain = bidir_layer
@@ -43,10 +73,16 @@ SMEM_LIMIT = 232448
 # the kernels' compile-time constants, checked against each built library
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
-# bilstm_wgrad.cu (kTile)
+# bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
+# (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu (kPad)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
+GATES_TILE_N, GATES_TILE_K = 128, 16
+WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD = 8, 256, 4
+# rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
+WIDE_ROWS = (2, 4, 7, 10)
+_WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +92,10 @@ _SIGNATURES = {
     "bilstm_bwd": ("bilstm_bwd", [_I, _P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                    + [_I] * 6 + [_P]),
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "bilstm_gates": ("bilstm_gates", [_I] + [_P] * 2 + [_I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
+    "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
+    "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
+                        + [_I] * 6 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -64,9 +104,17 @@ _CONSTANTS = {
                     "bilstm_bwd_max_threads", "bilstm_bwd_max_dx_rows", "bilstm_bwd_pad"),
                    (BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, MAX_THREADS, BWD_MAX_DX_ROWS, BWD_PAD)),
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
+    "bilstm_gates": (("bilstm_gates_tile_n", "bilstm_gates_tile_k"),
+                     (GATES_TILE_N, GATES_TILE_K)),
+    "bilstm_fwd_wide": (("bilstm_fwd_wide_cluster", "bilstm_fwd_wide_max_threads",
+                         "bilstm_fwd_wide_rows_mask"),
+                        (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
+    "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
+                         "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
+                        (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
 }
-_ERROR_STRING = {"bilstm_fwd": "bilstm_error_string", "bilstm_bwd": "bilstm_bwd_error_string",
-                 "bilstm_wgrad": "bilstm_wgrad_error_string"}
+_ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
+                 for name in _SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -186,6 +234,95 @@ def wgrad_check(E_parts: Sequence[int], H: int) -> None:
             f"bilstm_wgrad kernel needs 4H % {WGRAD_TILE} == 0 and every width "
             f"% 8 == 0, got E_parts={list(E_parts)}, H={H}"
         )
+
+
+def wide_check(H: int, E_parts: Optional[Sequence[int]] = None) -> None:
+    """ValueError for a width (and, when given, input parts) the wide
+    kernels (gates, wide forward, lite sweep) do not take."""
+    if H % 32 or not 32 <= H <= WIDE_MAX_THREADS:
+        raise ValueError(
+            f"bilstm wide kernels need H % 32 == 0 and 32 <= H <= {WIDE_MAX_THREADS}, got H={H}")
+    if E_parts is None:
+        return
+    if len(E_parts) not in (1, 2) or any(e <= 0 or e % GATES_TILE_K for e in E_parts):
+        raise ValueError(
+            f"bilstm wide kernels take 1 or 2 input parts, each a positive multiple of "
+            f"{GATES_TILE_K} wide, got {list(E_parts)}")
+
+
+def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """``"resident"`` where the resident kernels' plans fit (the layer's
+    weights in one block's shared memory), else ``"wide"``; ValueError for
+    a shape neither route takes. Shapes and dtype alone decide it, for CPU
+    and CUDA tensors alike, before any launch."""
+    try:
+        launch_plan(E_parts, H, dtype)
+        bwd_launch_plan(E_parts, H, dtype)
+        return "resident"
+    except ValueError as resident:
+        try:
+            wide_check(H, E_parts)
+        except ValueError as wide:
+            raise ValueError(f"no bilstm route takes this layer: {resident}; {wide}") from None
+    return "wide"
+
+
+def wide_smem(kind: str, H: int, rows_per_thread: int) -> int:
+    """Dynamic shared memory of a wide kernel's block (``kind`` "fwd" or
+    "bwd"): the f32 ``W_hh`` slice of its H/8 units, the tile's h (and, in
+    the sweep, its rounded gate cotangents)."""
+    U, BR = H // WIDE_CLUSTER, WIDE_CLUSTER * rows_per_thread
+    if kind == "fwd":
+        return H * 4 * U * 4 + BR * H * 4
+    return H * (4 * U + WIDE_PAD) * 4 + BR * H * 4 + BR * 4 * U * 4
+
+
+def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
+    """Row tiles of a wide launch: each weight group is cut into its own
+    tiles (the last one short), so no tile spans two groups."""
+    return G * -(-(B // G) // (WIDE_CLUSTER * rows_per_thread))
+
+
+def wide_plan(kind: str, B: int, G: int, H: int,
+              max_clusters: Callable[[int, int], int]) -> Tuple[int, int, int]:
+    """``(rows_per_thread, tiles, smem_bytes)`` of a wide launch: the rows
+    per thread whose clusters (one per row tile and direction) fill the
+    card in the fewest waves, and among those the smallest tile.
+    ``max_clusters(rows_per_thread, smem)`` is how many clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    best = None
+    for R in WIDE_ROWS:
+        smem = wide_smem(kind, H, R)
+        if smem > SMEM_LIMIT:
+            continue
+        tiles = wide_tiles(B, G, R)
+        waves = -(-2 * tiles // max(1, max_clusters(R, smem)))
+        if best is None or waves < best[0]:
+            best = (waves, R, tiles, smem)
+    if best is None:
+        raise ValueError(f"bilstm wide kernels: H={H} leaves no row tile in shared memory")
+    return best[1:]
+
+
+_cluster_counts: Dict[tuple, int] = {}
+# the operands between (dtype, rows_per_thread) and (T, B, H, G, tiles,
+# smem) of each wide kernel's C entry, when it only reports occupancy
+_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3}
+
+
+def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
+    def count(R: int, smem: int) -> int:
+        key = (name, dtype, H, R, smem, dev.index)
+        if key not in _cluster_counts:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                err = getattr(_kernels(name), name)(
+                    _DTYPE_CODES[dtype], R, *_NO_OPERANDS[name], 0, 0, H, 1, 1, smem, None,
+                    ctypes.byref(out))
+            _raise_on_error(name, err)
+            _cluster_counts[key] = out.value
+        return _cluster_counts[key]
+    return count
 
 
 def _check(name, t, shape, dtype, dev) -> None:
@@ -501,3 +638,222 @@ def bilstm_wgrad(
 
 
 bilstm_wgrad.launches = 0
+
+
+def bilstm_gates(
+    x_parts: Sequence[torch.Tensor],
+    w_ih: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The input projection of one layer; the contract of
+    ``ops/lstm.py:input_gates``: ``xg (2, T, B, 4H)`` f32 from 1 or 2
+    ``(T, B, E_i)`` parts and ``w_ih (2, 4H, E)`` in ``compute_dtype`` and
+    the f32 ``bias (2, 4H)``."""
+    x_parts = tuple(x_parts)
+    if not x_parts[0].is_cuda:
+        return input_gates(x_parts, w_ih, bias, compute_dtype)
+    cd = compute_dtype
+    if cd not in _DTYPE_CODES:
+        raise ValueError(f"bilstm_gates kernel takes float32 or bfloat16, got {cd}")
+    _no_graph(*x_parts, w_ih, bias)
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = w_ih.shape[1] // 4
+    E_parts = [p.shape[-1] for p in x_parts]
+    wide_check(H, E_parts)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if T * B == 0:
+        return xg
+    x1 = x_parts[1] if len(x_parts) == 2 else None
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_gates").bilstm_gates(
+            _DTYPE_CODES[cd], x_parts[0].data_ptr(), x1.data_ptr() if x1 is not None else None,
+            E_parts[0], E_parts[1] if x1 is not None else 0, w_ih.data_ptr(), bias.data_ptr(),
+            xg.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error("bilstm_gates", err)
+    bilstm_gates.launches += 1
+    return xg
+
+
+bilstm_gates.launches = 0
+
+
+def _wide_operands(xg, lengths, w_hh, cd, what):
+    """Checked operands of a wide kernel: ``(dev, T, B, H, G, w_hh)``."""
+    if cd not in _DTYPE_CODES:
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, got {cd}")
+    dev = xg.device
+    _, T, B, H4 = xg.shape
+    H = H4 // 4
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+    wide_check(H)
+    _check("xg", xg, (2, T, B, H4), torch.float32, dev)
+    _check("w_hh", w_hh, (2, G, H4, H), cd, dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    if B % G:
+        raise ValueError(f"{what} kernel: batch {B} is not a multiple of {G} weight groups")
+    return dev, T, B, H, G, w_hh
+
+
+def _fwd_wide_launch(xg, lengths, w_hh, cd, with_states):
+    _no_graph(xg, w_hh)
+    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, "bilstm_fwd_wide")
+    hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
+    hs_b = torch.empty_like(hs_f)
+    cs_f = torch.empty_like(hs_f) if with_states else None
+    cs_b = torch.empty_like(hs_f) if with_states else None
+    hn = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    cn = torch.empty_like(hn)
+    outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
+    if B == 0:
+        return outs
+    R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters("bilstm_fwd_wide", cd, H, dev))
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_fwd_wide").bilstm_fwd_wide(
+            _DTYPE_CODES[cd], R, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(),
+            cs_f.data_ptr() if with_states else None, cs_b.data_ptr() if with_states else None,
+            hn.data_ptr(), cn.data_ptr(), T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error("bilstm_fwd_wide", err)
+    return outs
+
+
+def bilstm_fwd_wide(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's recurrence over its input gates, eval variant; the
+    contract of ``ops/lstm.py:bidir_recurrence``.
+
+    :param xg: ``(2, T, B, 4H)`` f32 (``bilstm_gates``).
+    :param lengths: ``(B,)`` int32; ``w_hh`` ``(2, 4H, H)`` or ``(2, G, 4H,
+        H)`` in ``compute_dtype``.
+    :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype``, ``hn, cn
+        (2, B, H)`` f32.
+    """
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
+    outs = _fwd_wide_launch(xg, lengths, w_hh, compute_dtype, False)
+    bilstm_fwd_wide.launches += 1
+    return outs
+
+
+bilstm_fwd_wide.launches = 0
+
+
+def bilstm_fwd_wide_train(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_fwd_wide`: also the cell streams
+    ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``."""
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
+    outs = _fwd_wide_launch(xg, lengths, w_hh, compute_dtype, True)
+    bilstm_fwd_wide_train.launches += 1
+    return outs
+
+
+bilstm_fwd_wide_train.launches = 0
+
+
+def bilstm_bwd_lite(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """One layer's backward sweep over its input gates; the contract of
+    ``ops/lstm.py:bidir_layer_sweep_lite``: returns the masked ``dgates
+    (2, T, B, 4H)`` f32."""
+    dyf, dyb = tuple(dyf), tuple(dyb)
+    cd = compute_dtype
+    if not xg.is_cuda:
+        return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                                      dhn, dcn, cd)
+    if len(dyf) != len(dyb) or len(dyf) > 2:
+        raise ValueError(
+            f"bilstm_bwd_lite kernel takes 0-2 dy streams per direction, "
+            f"got {len(dyf)}/{len(dyb)}")
+    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, "bilstm_bwd_lite")
+    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
+                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
+        _check(name, t, (T, B, H), cd, dev)
+    for name, t in (("dhn", dhn), ("dcn", dcn)):
+        if t is not None:
+            _check(name, t, (2, B, H), torch.float32, dev)
+    dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return dgates
+    R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters("bilstm_bwd_lite", cd, H, dev))
+
+    def ptr(seq, k):
+        return seq[k].data_ptr() if k < len(seq) else None
+
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_bwd_lite").bilstm_bwd_lite(
+            _DTYPE_CODES[cd], R, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+            ptr(dyf, 0), ptr(dyf, 1), ptr(dyb, 0), ptr(dyb, 1), len(dyf),
+            None if dhn is None else dhn.data_ptr(), None if dcn is None else dcn.data_ptr(),
+            dgates.data_ptr(), T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error("bilstm_bwd_lite", err)
+    bilstm_bwd_lite.launches += 1
+    return dgates
+
+
+bilstm_bwd_lite.launches = 0
+
+
+# ------------------------------------------------------------ one layer, routed
+def layer_fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states=False):
+    """One layer's forward on its route (``layer_route``): the eval
+    variant's ``(hs_f, hs_b, hn, cn)``, or with ``with_states`` the train
+    variant's, which adds ``(cs_f, cs_b)``."""
+    x_parts = tuple(x_parts)
+    route = layer_route([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+    if route == "resident":
+        fwd = bilstm_layer_fwd_train if with_states else bilstm_layer_fwd
+        return fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    fwd = bilstm_fwd_wide_train if with_states else bilstm_fwd_wide
+    return fwd(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh, compute_dtype)
+
+
+def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+              dyf, dyb, dhn, dcn, compute_dtype):
+    """One layer's backward sweep on its route, with the contract of
+    ``bilstm_bwd``: ``(dxf, dxb, dgc, dbias)``. The wide route recomputes
+    the input gates with the forward's kernel (the same f32 values), runs
+    the lite sweep, and forms dx, ``dgc`` and ``dbias`` with
+    ``ops/lstm.py:input_grads``."""
+    x_parts = tuple(x_parts)
+    E_parts = [p.shape[-1] for p in x_parts]
+    if layer_route(E_parts, hs_f.shape[-1], compute_dtype) == "resident":
+        return bilstm_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                          dyf, dyb, dhn, dcn, compute_dtype)
+    dgates = bilstm_bwd_lite(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
+                             hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+    return input_grads(dgates, w_ih, E_parts)

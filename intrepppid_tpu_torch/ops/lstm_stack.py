@@ -1,17 +1,19 @@
 """The bidirectional LSTM stack as one autograd unit
 (`intrepppid_tpu/ops/lstm_pallas_layer.py:1124-1283 pallas_bilstm_stack`).
 
-``BiLSTMStack`` runs every layer's train forward (``bilstm_layer_fwd_train``:
-outputs plus cell streams) and saves the x parts, lengths, weights, ``hs``
-and ``cs`` of each layer. Its backward walks the layers top down: each
-layer's sweep (``bilstm_bwd``) then its weight gradients (``bilstm_wgrad``).
-An upper layer's input cotangent stays unsummed: its part-0 contributions
-from both directions, ``(dxf[0], dxb[0])``, become the lower layer's two
-``hs_f`` cotangent streams, and ``(dxf[1], dxb[1])`` its ``hs_b`` streams,
-summed in f32 inside the lower sweep (``:1255-1256``). Only layer 0's input
-cotangent is summed here. The top layer's ``hs`` cotangents arrive as None
-when the caller reads only ``hn`` (the train step reads ``hn[-1]``); the
-sweep then takes no dy stream at all.
+``BiLSTMStack`` runs every layer's train forward on the layer's route
+(``lstm_cuda.layer_fwd``: outputs plus cell streams) and saves the x
+parts, lengths, weights, ``hs`` and ``cs`` of each layer. Its backward
+walks the layers top down: each layer's sweep on the same route
+(``lstm_cuda.layer_bwd``: the resident sweep, or the input gates, the lite
+sweep and the input-side products) then its weight gradients
+(``bilstm_wgrad``). An upper layer's input cotangent stays unsummed: its
+part-0 contributions from both directions, ``(dxf[0], dxb[0])``, become the
+lower layer's two ``hs_f`` cotangent streams, and ``(dxf[1], dxb[1])`` its
+``hs_b`` streams, summed in f32 inside the lower sweep (``:1255-1256``).
+Only layer 0's input cotangent is summed here. The top layer's ``hs``
+cotangents arrive as None when the caller reads only ``hn`` (the train step
+reads ``hn[-1]``); the sweep then takes no dy stream at all.
 
 CPU tensors run the plain forward and backward inside the same Function;
 CUDA tensors run the kernels or raise (``ops/lstm_cuda.py``).
@@ -23,11 +25,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from intrepppid_tpu_torch.ops.lstm import LayerParams, grouped_w_hh
-from intrepppid_tpu_torch.ops.lstm_cuda import (
-    bilstm_bwd,
-    bilstm_layer_fwd_train,
-    bilstm_wgrad,
-)
+from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_wgrad, layer_bwd, layer_fwd
 
 _PER_LAYER = 7  # saved per layer: w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b
 
@@ -55,8 +53,8 @@ class BiLSTMStack(torch.autograd.Function):
             w_ih_c = w_ih.to(cd).contiguous()
             w_hh_c = grouped_w_hh(w_hh).to(cd).contiguous()
             b = bias.float().contiguous()
-            hs_f, hs_b, hn, cn, cs_f, cs_b = bilstm_layer_fwd_train(
-                parts, lengths, w_ih_c, w_hh_c, b, cd
+            hs_f, hs_b, hn, cn, cs_f, cs_b = layer_fwd(
+                parts, lengths, w_ih_c, w_hh_c, b, cd, with_states=True
             )
             saved += [w_ih_c, w_hh_c, b, hs_f, hs_b, cs_f, cs_b]
             hns.append(hn)
@@ -93,11 +91,12 @@ class BiLSTMStack(torch.autograd.Function):
                 parts = tuple(saved[(l - 1) * _PER_LAYER + 3:(l - 1) * _PER_LAYER + 5])
             dhn = None if g_hn is None else g_hn[2 * l:2 * l + 2].float().contiguous()
             dcn = None if g_cn is None else g_cn[2 * l:2 * l + 2].float().contiguous()
-            dxf, dxb, dgc, dbias = bilstm_bwd(
+            dxf, dxb, dgc, dbias = layer_bwd(
                 parts, lengths, w_ih, w_hh, b, hs_f, hs_b, cs_f, cs_b,
                 dyf, dyb, dhn, dcn, cd,
             )
             dw_ih, dw_hh = bilstm_wgrad(dgc, parts, hs_f, hs_b, w_hh.shape[1])
+            del dgc
             dt = ctx.weight_dtypes[3 * l:3 * l + 3]
             grads[3 * l] = dw_ih.to(dt[0])
             grads[3 * l + 1] = dw_hh.reshape(ctx.w_hh_shapes[l]).to(dt[1])

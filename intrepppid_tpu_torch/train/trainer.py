@@ -122,8 +122,10 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping[str, Any], i: int = 0) -> Dict[str, torch.Tensor]:
-        """``net.step(train=False)`` on ``batch``: losses and metrics."""
+        """``net.step(train=False)`` on ``batch``: losses and metrics. No
+        gradient is taken, so the LSTM runs its eval forward."""
         net = self.net.eval()
         gen = step_generator(self.device, self.seed + 17, i)
-        _, aux = net.step(self.to_device(batch), gen, train=False)
+        with torch.no_grad():
+            _, aux = net.step(self.to_device(batch), gen, train=False)
         return aux

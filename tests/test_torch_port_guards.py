@@ -42,8 +42,13 @@ def test_every_kernel_source_is_built_and_bound():
     from intrepppid_tpu_torch.ops import _build, lstm_cuda
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"}
-    assert sources == set(lstm_cuda._SIGNATURES)
+    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
+                       "bilstm_fwd_wide", "bilstm_bwd_lite"}
+    assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
+    # each library's C entry and its error string are named in the sources
+    for name, (fn, _) in lstm_cuda._SIGNATURES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
     assert any(_build.CSRC.glob("*.cuh"))
 
 

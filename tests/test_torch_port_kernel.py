@@ -1,6 +1,7 @@
 """The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
-the eval and train forward, the backward sweep, the weight gradients), their
-plain PyTorch versions (``ops/lstm.py``) and the stack's autograd
+the eval and train forward, the backward sweep, the weight gradients, and
+the wide route's input gates, cluster forward and lite sweep), their plain
+PyTorch versions (``ops/lstm.py``) and the stack's autograd
 (``ops/lstm_stack.py``), without JAX.
 
 On the CPU each wrapper takes its plain version. The tests marked ``cuda``
@@ -15,7 +16,14 @@ import torch
 
 from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.ops import lstm_cuda
-from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_sweep, bidir_layer_wgrad
+from intrepppid_tpu_torch.ops.lstm import (
+    bidir_layer,
+    bidir_layer_sweep,
+    bidir_layer_sweep_lite,
+    bidir_layer_wgrad,
+    bidir_recurrence,
+    input_gates,
+)
 
 
 def test_bilstm_masking_semantics():
@@ -165,6 +173,55 @@ def test_train_wrappers_take_plain_versions_on_cpu():
                                  lstm_cuda.bilstm_wgrad)] == counts
 
 
+def test_wide_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 4, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
+    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+    counts = [f.launches for f in wrappers]
+    xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, torch.float32)
+    assert xg.shape == (2, 6, 4, 128) and xg.dtype == torch.float32
+    assert torch.equal(xg, input_gates(parts, w_ih, bias, torch.float32))
+    fwd = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, torch.float32)
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.float32, with_states=True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, torch.float32), want[:4]))
+    hs_f, hs_b, _, _, cs_f, cs_b = fwd
+    args = (lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, torch.float32)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite(xg, *args), bidir_layer_sweep_lite(xg, *args))
+    assert [f.launches for f in wrappers] == counts
+
+
+def test_wide_plan_fills_the_card_in_fewest_waves():
+    """The scaled train shape at H = 256 with 16 clusters at once: the
+    forward's 80-row tiles cover layer 0's five groups of 80 and layer 1's
+    400 rows in one wave; the sweep's tiles are capped by shared memory,
+    so it takes the smallest tile of its fewest waves."""
+    sixteen = lambda R, smem: 16  # noqa: E731
+    assert lstm_cuda.wide_plan("fwd", 400, 5, 256, sixteen)[:2] == (10, 5)
+    assert lstm_cuda.wide_plan("fwd", 400, 1, 256, sixteen)[:2] == (7, 8)
+    R, tiles, smem = lstm_cuda.wide_plan("bwd", 400, 5, 256, sixteen)
+    assert (R, tiles) == (4, 15) and smem <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_plan("bwd", 400, 1, 256, sixteen)[:2] == (7, 8)
+    assert lstm_cuda.wide_smem("bwd", 256, 10) > lstm_cuda.SMEM_LIMIT
+    # more room on the card: the smallest tile that fits one wave
+    assert lstm_cuda.wide_plan("fwd", 400, 1, 128, lambda R, smem: 64)[0] == 2
+    assert lstm_cuda.wide_tiles(400, 5, 4) == 15 and lstm_cuda.wide_tiles(50, 1, 2) == 4
+
+
+@pytest.mark.parametrize("H,E_parts,ok", [(256, [256, 256], True), (128, [128], True),
+                                          (32, [32], True), (288, [288], False),
+                                          (96, [96], True), (80, [80], False),
+                                          (256, [200], False)])
+def test_wide_check(H, E_parts, ok):
+    if ok:
+        lstm_cuda.wide_check(H, E_parts)
+    else:
+        with pytest.raises(ValueError, match="bilstm wide kernels"):
+            lstm_cuda.wide_check(H, E_parts)
+
+
 def test_kernel_refuses_operands_that_would_lose_their_gradient():
     w = torch.zeros(2, 4, requires_grad=True)
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -174,10 +231,10 @@ def test_kernel_refuses_operands_that_would_lose_their_gradient():
     lstm_cuda._no_graph(w.detach())
 
 
-def model_grads(device, dtype=torch.float32):
+def model_grads(device, dtype=torch.float32, embedding_size=16):
     """``loss.backward()`` through a small model's train step: the
     gradient of every LSTM parameter and of the embedding table."""
-    net = intrepppid_network(4, vocab_size=30, embedding_size=16, compute_dtype=dtype,
+    net = intrepppid_network(4, vocab_size=30, embedding_size=embedding_size, compute_dtype=dtype,
                              device=device, rnn_dropout_rate=0.0, embedding_droprate=0.0,
                              do_rate=0.0)
     g = torch.Generator().manual_seed(0)
@@ -287,6 +344,65 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E_parts,H,G,B", [([256], 256, 5, 60), ([256, 256], 256, 1, 70),
+                                           ([128], 128, 2, 30), ([128, 128], 128, 1, 20),
+                                           ([32], 32, 3, 24)])
+def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
+    """Input gates, the cluster forward (both variants), the lite sweep
+    and wgrad against their plain versions. Groups of 12, 15 and 8 rows
+    leave short row tiles inside each group."""
+    T = 24
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
+                                                                 cuda_device)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+
+    def close(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= tol * max(
+                1.0, float(b.float().abs().max()))
+
+    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
+    close([xg], [input_gates(parts, w_ih, bias, dtype)])
+    ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
+    close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
+    close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
+    hs_f, hs_b, _, _, cs_f, cs_b = ref
+    ny = 2 if len(E_parts) == 1 else 1
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
+    dgates = bidir_layer_sweep_lite(*args)
+    close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
+    dgc = dgates.to(dtype)
+    close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+          bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
+    """A model at embedding 128 (H = 128) takes the wide route on the card;
+    its gradients equal the CPU plain path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
+    before = (lstm_cuda.bilstm_gates.launches, lstm_cuda.bilstm_fwd_wide_train.launches,
+              lstm_cuda.bilstm_bwd_lite.launches, lstm_cuda.bilstm_layer_fwd_train.launches)
+    got = model_grads(cuda_device, embedding_size=128)
+    torch.cuda.synchronize()
+    after = (lstm_cuda.bilstm_gates.launches, lstm_cuda.bilstm_fwd_wide_train.launches,
+             lstm_cuda.bilstm_bwd_lite.launches, lstm_cuda.bilstm_layer_fwd_train.launches)
+    assert [a - b for a, b in zip(after, before)] == [4, 2, 2, 0]
+    want = model_grads(torch.device("cpu"), embedding_size=128)
+    for name, grad in got.items():
+        ref = want[name]
+        assert float((grad.cpu() - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.cuda
