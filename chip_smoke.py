@@ -50,7 +50,28 @@ exits non-zero with no result):
    the wide kernels and never through the resident train kernels, a
    profiled step and peak memory; then one step's gradients at embedding
    256 and 3 layers held against the CPU plain path;
-8. the ``kernels`` line, the card's name and power limit, and the result.
+8. recurrence_kernel — the time-major recurrence op's kernels (forward,
+   sweep, weight gradient) against their plain versions at T = 1500,
+   D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
+   groups, and H = 32 at T = 300; f32 and bf16; masks built from lengths
+   (mixing 0, 1, T and random values; a suffix for the reverse direction)
+   and a random mask with holes, an all-zero and an all-one row. Each is
+   timed with CUDA events beside its plain version and a PyTorch yardstick
+   (one bidirectional ``nn.LSTM`` layer at full lengths, which also does
+   the input projection; cuBLAS for the weight gradient);
+9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
+   manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
+   steps, one eval step): the recurrence kernels' launch counts must be
+   > 0 and the layer kernels' stay 0; a profiled step, peak memory, and
+   the card's gradients against the CPU's on the same backend;
+10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
+    synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
+    ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
+    1500, batch 64, seeded weights): 4000 rows in input order, the first
+    batch's 64 probabilities against the same command on the CPU, the
+    eval kernel's launch count; file-to-file seconds and pairs/s, and
+    where the time goes;
+11. the ``kernels`` line, the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -643,7 +664,10 @@ def train_counters():
             "bilstm_bwd": L.bilstm_bwd, "bilstm_wgrad": L.bilstm_wgrad,
             "bilstm_layer_fwd": L.bilstm_layer_fwd, "bilstm_gates": L.bilstm_gates,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
-            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite}
+            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
+            "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
+            "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
+            "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1016,6 +1040,287 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     return out
 
 
+# ------------------------------------------------- the time-major recurrence
+D_REC = 2
+# (H, G, T): the manuscript width with the train step's 5 weight groups and
+# with shared weights, the scaled width, and H = 32
+REC_SHAPES = ((H_SERVE, G_TRAIN, T_TRAIN), (H_SERVE, 1, T_TRAIN), (E_SCALED, G_TRAIN, T_TRAIN),
+              (32, G_TRAIN, 300))
+
+
+def recurrence_inputs(T, H, G, dtype, dev, mask, seed, B=B_TRAIN, D=D_REC):
+    """Operands of the recurrence op. ``mask`` "lengths": ``valid`` as the
+    layer builds it, a prefix for direction 0 and a suffix for direction 1,
+    lengths mixing 0, 1, T and random values; "holes": drawn at random
+    (70 % on) with an all-zero and an all-one row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+    xg = u(T, D, B, 4 * H)
+    w = (u(D, G, H, 4 * H) * H ** -0.5).to(dtype).contiguous()
+    if mask == "lengths":
+        lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev)
+        lengths[0], lengths[1], lengths[2] = 0, 1, T
+        lengths[3::4] = T
+        steps = torch.arange(T, device=dev)
+        valid = torch.stack([steps[:, None] < lengths[None, :],
+                             (T - 1 - steps)[:, None] < lengths[None, :]], dim=1)
+    else:
+        valid = torch.rand(T, D, B, generator=g, device=dev) < 0.7
+        valid[:, :, 0] = False
+        valid[:, :, 1] = True
+    return xg, valid, w, u(T, D, B, H), u(D, B, H), u(D, B, H)
+
+
+def recurrence_work(T, H, G, size, B=B_TRAIN, D=D_REC):
+    """(flops, bytes) of each recurrence kernel: every step is computed
+    whatever the mask, 4H x H multiply-adds per row, step and direction
+    (twice in the sweep: gate recompute and dh); each input read once and
+    each output written once (every stream f32, the mask one byte)."""
+    rows = D * B * T
+    state = D * B * H * 4
+    w = D * G * H * 4 * H
+    xg, st = rows * 4 * H * 4, rows * H * 4
+    return {
+        "fwd": (2 * rows * 4 * H * H, xg + rows + w * size + 2 * st + 2 * state),
+        "bwd": (2 * rows * 4 * H * 2 * H, xg + rows + w * size + 3 * st + 2 * state + xg),
+        "wgrad": (2 * D * B * (T - 1) * 4 * H * H, st + xg + w * 4),
+    }
+
+
+def timed_once(fn):
+    """(result, ms) of one call, CUDA events around it: for the plain
+    versions, whose Python loops over T are too slow to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def recurrence_library(T, H, dev, B=B_TRAIN):
+    """cuDNN yardstick, f32, TF32 off: one bidirectional ``nn.LSTM`` layer
+    (input width H) at full lengths. It also does the input projection,
+    which the op takes precomputed. Training-mode forward, and the backward
+    for the input alone (training forward and backward, less the forward)."""
+    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(dev)
+    x = (torch.rand(T, B, H, device=dev) * 2 - 1).requires_grad_()
+    dy = torch.rand(T, B, 2 * H, device=dev) * 2 - 1
+    fwd_ms = time_ms(lambda: lstm(x), 3)
+    for prm in lstm.parameters():
+        prm.requires_grad_(False)
+    data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 3)
+    return fwd_ms, data_ms - fwd_ms
+
+
+def phase_recurrence_kernel(dev) -> dict:
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import (
+        recurrence_fwd,
+        recurrence_sweep,
+        recurrence_wgrad,
+    )
+
+    checks, timings = [], []
+    for i, (H, G, T) in enumerate(REC_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            size = torch.empty((), dtype=dtype).element_size()
+            for mask in ("lengths", "holes"):
+                xg, valid, w, dhs, dhn, dcn = recurrence_inputs(
+                    T, H, G, dtype, dev, mask, SEED + 60 + i)
+                tol = TOL[dtype]
+                ref, fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G, dtype))
+                got = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
+                res = {n: rel_err(a, b, tol)
+                       for n, a, b in zip(("hs", "cs", "hn", "cn"), got, ref)}
+                del got
+                hs, cs = ref[:2]
+                args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
+                dxg, bwd_plain_ms = timed_once(lambda: recurrence_sweep(*args))
+                res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
+                dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
+                res["dw"] = rel_err(L.lstm_recurrence_wgrad(hs, dxg, G, dtype), dw, tol)
+                torch.cuda.synchronize()
+                shape = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
+                         "dtype": str(dtype).replace("torch.", ""), "mask": mask}
+                check = {**shape, "valid_share": float(valid.float().mean()),
+                         "max_abs_err": {n: e for n, (e, _) in res.items()},
+                         "tol": f"{tol} x max(1, max|ref|)"}
+                checks.append(check)
+                if not all(ok for _, ok in res.values()):
+                    emit({"phase": "recurrence_kernel", "failed": check})
+                    raise AssertionError(
+                        f"a recurrence kernel disagrees with its plain version: {check}")
+                t = {**shape,
+                     "fwd_ms": time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype), 3),
+                     "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
+                     "wgrad_ms": time_ms(
+                         lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
+                     "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
+                     "wgrad_plain_ms": wgrad_plain_ms}
+                add_bounds(t, recurrence_work(T, H, G, size), dtype)
+                if dtype == torch.float32 and mask == "lengths":
+                    # yardsticks the port never calls: cuDNN for the recurrence
+                    # and the sweep (it also does the input projection), one
+                    # batched cuBLAS product for the weight gradient
+                    Bg = B_TRAIN // G
+                    hp = hs[:-1].view(T - 1, D_REC, G, Bg, H).permute(1, 2, 4, 0, 3).reshape(
+                        D_REC, G, H, (T - 1) * Bg)
+                    dg = dxg[1:].view(T - 1, D_REC, G, Bg, 4 * H).permute(1, 2, 0, 3, 4).reshape(
+                        D_REC, G, (T - 1) * Bg, 4 * H)
+                    t["wgrad_library_ms"] = time_ms(lambda: torch.matmul(hp, dg), 3)
+                    del hp, dg
+                del xg, valid, w, dhs, ref, hs, cs, dxg, dw, args
+                if "wgrad_library_ms" in t:
+                    t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev)
+                timings.append(t)
+    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
+                      for k, v in L._cluster_counts.items() if k[0].startswith("lstm_rec")}
+    out = {"phase": "recurrence_kernel", "checks": checks, "timings": timings,
+           "max_active_clusters": cluster_counts,
+           "library": "one bidirectional nn.LSTM layer (cuDNN, f32, full lengths), which also "
+                      "does the input projection; cuBLAS for wgrad"}
+    emit(out)
+    return out
+
+
+def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.ops import lstm
+    from intrepppid_tpu_torch.train import Trainer
+
+    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_wgrad")
+    lstm.DEFAULT_BACKEND = "recurrence"
+    try:
+        rng = np.random.default_rng(SEED)
+        net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.bfloat16,
+                                 optimizer_type="ranger21_xx", device=dev, seed=SEED)
+        trainer = Trainer(net, seed=SEED)
+        batches = [quintuplet_batch(rng, PAIRS_TRAIN, T_TRAIN) for _ in range(4)]
+        counters = train_counters()
+        # the main path: the train steps and the eval step below
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = [], []
+        for i in range(warmup + steps):
+            t = time.perf_counter()
+            aux = trainer.train_step(batches[i % len(batches)])
+            losses.append(aux["loss"].item())
+            if i >= warmup:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        eval_loss = trainer.eval_step(batches[0])["loss"].item()
+        eval_ms = (time.perf_counter() - t) * 1e3
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        breakdown = profile_device(
+            lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
+            groups={"fwd": "lstm_recurrence_fwd_kernel", "sweep": "lstm_recurrence_bwd_kernel",
+                    "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
+        if not all(np.isfinite(losses + [eval_loss])):
+            raise AssertionError(
+                f"non-finite loss on the recurrence backend: {losses}, eval {eval_loss}")
+        missing = [n for n in new if launches[n] <= 0]
+        layer = [n for n, c in launches.items() if n not in new and c != 0]
+        if missing or layer:
+            raise AssertionError(
+                f"the recurrence-backend steps missed {missing} or ran the layer kernels {layer}")
+        del trainer, net
+        # the card's gradients against the CPU's, both on this backend
+        grad_check = train_grad_check(dev)
+    finally:
+        lstm.DEFAULT_BACKEND = "auto"
+    median = float(np.median(step_ms))
+    out = {"phase": "recurrence_path", "backend": "recurrence", "pairs": PAIRS_TRAIN,
+           "T": T_TRAIN, "dtype": "bfloat16", "optimizer": "ranger21_xx", "dropout": 0.3,
+           "step_ms": step_ms, "median_step_ms": median,
+           "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
+           "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
+           "peak_memory_gib": peak_gib, "step_profile": breakdown, "grad_check": grad_check}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------------ infer
+def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=258) -> dict:
+    """``infer from_csv`` file to file on a synthetic proteome, built as
+    ``tools/bench_infer.py`` builds it."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd
+    from intrepppid_tpu_torch.utils.convert import save_reference_checkpoint
+
+    spm = ROOT / "tests" / "fixtures" / "golden_spm.model"
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fasta, pairs, head = tmp / "proteome.fasta", tmp / "pairs.csv", tmp / "head.csv"
+        seqs = ["".join(rng.choice(list(AAS), int(rng.integers(200, 2 * trunc_len))))
+                for _ in range(n_seqs)]
+        fasta.write_text("".join(f">P{i:05d}\n{s}\n" for i, s in enumerate(seqs)))
+        rows = [f"itx{i},P{rng.integers(n_seqs):05d},P{rng.integers(n_seqs):05d}"
+                for i in range(n_pairs)]
+        pairs.write_text("\n".join(rows) + "\n")
+        head.write_text("\n".join(rows[:batch]) + "\n")
+        ckpt = tmp / "model.ckpt"
+        save_reference_checkpoint(random_jax_params(SEED, V=vocab), ckpt)
+
+        def run(csv_in, out, device):
+            return cli(["infer", "from_csv", "--interactions_path", str(csv_in),
+                        "--sequences_path", str(fasta), "--weights_path", str(ckpt),
+                        "--spm_path", str(spm), "--out_path", str(out),
+                        "--trunc_len", str(trunc_len), "--batch_size", str(batch),
+                        "--vocab_size", str(vocab), "--device", device])
+
+        # the main path: the command, file to file
+        bilstm_layer_fwd.launches = 0
+        t = time.perf_counter()
+        n = run(pairs, tmp / "scores.csv", str(dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = bilstm_layer_fwd.launches
+        got = [ln.split(",") for ln in (tmp / "scores.csv").read_text().splitlines()]
+        # where the time goes: the same command under the profiler (device
+        # busy time and idle share), and the sequence library's tokenising
+        # on its own
+        breakdown = profile_device(lambda: run(pairs, tmp / "again.csv", str(dev)))
+        spp = SentencePieceTokenizer(spm)
+        t = time.perf_counter()
+        spp.encode_batch_padded(seqs, trunc_len, workers=8)
+        tokenise_s = time.perf_counter() - t
+        # the first batch on the CPU: the same command, the plain forward
+        t = time.perf_counter()
+        run(head, tmp / "head_scores.csv", "cpu")
+        cpu_s = time.perf_counter() - t
+        ref = [ln.split(",") for ln in (tmp / "head_scores.csv").read_text().splitlines()]
+    ids = [r[0] for r in got]
+    probs = np.array([float(r[1]) for r in got])
+    if n != n_pairs or ids != [f"itx{i}" for i in range(n_pairs)]:
+        raise AssertionError(f"infer wrote {len(ids)} rows (returned {n}), or out of input order")
+    if not np.all(np.isfinite(probs)) or not np.all((probs > 0) & (probs < 1)):
+        raise AssertionError("infer wrote probabilities that are not finite values in (0, 1)")
+    if launches <= 0:
+        raise AssertionError("infer never launched the bilstm kernel")
+    if [r[0] for r in ref] != ids[:batch]:
+        raise AssertionError("the CPU run of the first batch wrote other ids")
+    err = float(np.abs(probs[:batch] - np.array([float(r[1]) for r in ref])).max())
+    if not err <= 1e-4:
+        raise AssertionError(f"infer probabilities differ from the CPU forward by {err}")
+    out = {"phase": "infer", "sequences": n_seqs, "pairs": n_pairs, "trunc_len": trunc_len,
+           "batch_size": batch, "vocab": vocab, "file_to_file_s": seconds,
+           "pairs_per_s": n_pairs / seconds, "launches": launches,
+           "max_abs_err_vs_cpu": err, "cpu_sample": batch, "cpu_reference_s": cpu_s,
+           "tokenise_library_s": tokenise_s, "second_run_profile": breakdown}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1037,6 +1342,9 @@ def main() -> int:
     train = phase_train(dev)
     wk = phase_wide_kernel(dev)
     scaled = phase_train_scaled(dev)
+    rk = phase_recurrence_kernel(dev)
+    rpath = phase_recurrence_path(dev)
+    phase_infer(dev)
 
     f32 = kern["timings"]["float32"]
     bound_ops = f32["flops"] / PEAK_F32_FLOPS * 1e3
@@ -1114,6 +1422,32 @@ def main() -> int:
             "library_ms": w32[f"{key}_library_ms"],
             "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, "
                     "400 rows, T=1500, H=256",
+        })
+    # the recurrence op: both layers of one recurrence-backend step (layer 0
+    # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
+    step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
+            and t["H"] == H_SERVE and t["T"] == T_TRAIN]
+    rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
+    for key, replaces in (("fwd", "lstm_pallas.py:116"), ("bwd", "lstm_pallas.py:185"),
+                          ("wgrad", "lstm_pallas.py:185")):
+        ops_ms = sum(t[f"{key}_flops"] for t in step) / PEAK_F32_FLOPS * 1e3
+        bytes_ms = sum(t[f"{key}_bytes"] for t in step) / PEAK_BYTES * 1e3
+        kernels.append({
+            "name": f"lstm_recurrence_{key}",
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/lstm_recurrence_{key}.cu",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": rpath["launches"][f"lstm_recurrence_{key}"],
+            "max_abs_err": max(v for c in rk["checks"] if c["dtype"] == "float32"
+                               for n, v in c["max_abs_err"].items() if n in rec_errs[key]),
+            "ms": sum(t[f"{key}_ms"] for t in step),
+            "plain_ms": sum(t[f"{key}_plain_ms"] for t in step),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": sum(t[f"{key}_library_ms"] for t in step),
+            "work": "both layers of one recurrence-backend step (5 weight groups + 1), f32, "
+                    "D=2, 400 rows, T=1500, H=64; library: cuDNN nn.LSTM layers, which also "
+                    "do the input projection (cuBLAS for wgrad)",
         })
     emit({"kernels": kernels})
     smi = subprocess.run(

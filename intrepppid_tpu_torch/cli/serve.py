@@ -8,27 +8,10 @@ runs on ``--device`` (default ``cuda``); there is no silent CPU fallback.
 """
 from __future__ import annotations
 
-import gzip
 from pathlib import Path
-from typing import Iterator, Optional, Tuple
+from typing import Optional
 
-
-def stream_fasta(fasta_path) -> Iterator[Tuple[str, str]]:
-    """``(name, sequence)`` records of a FASTA file (``.gz`` allowed)."""
-    opener = gzip.open if str(fasta_path).endswith(".gz") else open
-    with opener(str(fasta_path), "rt") as f:
-        name, sequence = None, None
-        for line in f:
-            line = line.strip()
-            if line.startswith(">"):
-                if sequence:
-                    yield name, sequence
-                name = line[1:]
-                sequence = ""
-            elif sequence is not None:
-                sequence += line
-        if sequence:
-            yield name, sequence
+from intrepppid_tpu_torch.cli.infer import stream_fasta
 
 
 class Serve:

@@ -1,6 +1,7 @@
-// Helpers shared by the bidirectional-LSTM kernels (bilstm_fwd.cu,
-// bilstm_bwd.cu, bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu,
-// bilstm_bwd_lite.cu): compute-dtype conversions, 16-byte stream chunks
+// Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
+// bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
+// lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
+// lstm_recurrence_wgrad.cu): compute-dtype conversions, 16-byte stream chunks
 // widened to f32 in shared memory, the per-unit four-gate product over
 // weights resident in shared memory, and the launch dispatch of the wide
 // (cluster) kernels.
@@ -25,6 +26,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// An f32 value rounded to the compute dtype T, as f32.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
 
 // Four consecutive weights (the four gates of one (k, unit) pair) as f32.
 // `w` is 16-byte aligned for float and 8-byte aligned for bf16.
@@ -119,8 +124,9 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
   }
 }
 
-// The wide kernels (bilstm_fwd_wide.cu, bilstm_bwd_lite.cu) split one row
-// tile's hidden units over a cluster of kWideCluster blocks of H threads
+// The wide kernels (bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
+// lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu) split one row tile's
+// hidden units over a cluster of kWideCluster blocks of H threads
 // (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
 // of kWideRows.
 constexpr int kWideCluster = 8;
@@ -145,13 +151,13 @@ int dispatch_wide(int dtype, int rows, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch `kernel` over grid (tiles * kWideCluster, 2) in clusters of
+// Launch `kernel` over grid (tiles * kWideCluster, dirs) in clusters of
 // kWideCluster blocks along x, H threads each, `smem` bytes of dynamic
 // shared memory. With `max_clusters` non-null, only report how many such
 // clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
 template <typename... Params, typename... Args>
-int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStream_t stream,
-                int* max_clusters, Args... args) {
+int launch_wide_dirs(void (*kernel)(Params...), int tiles, int dirs, int H, int smem,
+                     cudaStream_t stream, int* max_clusters, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -161,7 +167,7 @@ int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStrea
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * kWideCluster, 2, 1);
+  cfg.gridDim = dim3(tiles * kWideCluster, dirs, 1);
   cfg.blockDim = dim3(H, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -174,6 +180,13 @@ int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStrea
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The two-direction launch of the layer kernels.
+template <typename... Params, typename... Args>
+int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStream_t stream,
+                int* max_clusters, Args... args) {
+  return launch_wide_dirs(kernel, tiles, 2, H, smem, stream, max_clusters, args...);
 }
 
 // A cluster barrier without release / acquire ordering: enough where it

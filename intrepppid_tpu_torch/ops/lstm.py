@@ -19,11 +19,15 @@ the card.
   _bwd_pallas_packed``): the sweep, and the weight-gradient products over
   its gate cotangent stream; ``bidir_layer_bwd`` runs both.
 
-``bilstm`` runs the stack: under autograd through ``ops/lstm_stack.py``
-(one ``torch.autograd.Function`` over the whole stack, in the role of
+``bilstm`` runs the stack on one of two backends (``DEFAULT_BACKEND``, or
+per call). ``"layer"``: under autograd through ``ops/lstm_stack.py`` (one
+``torch.autograd.Function`` over the whole stack, in the role of
 ``pallas_bilstm_stack``), otherwise layer by layer through
-``lstm_cuda.layer_fwd``. Both take these plain versions for CPU tensors
-and the kernels for CUDA tensors.
+``lstm_cuda.layer_fwd``. ``"recurrence"``: per layer the hoisted input
+projection in PyTorch and the time-major recurrence op
+(``ops/lstm_recurrence.py``), the counterpart of the JAX package's
+``_bidir_layer`` (its ``backend="scan"`` path). Both take the plain
+versions for CPU tensors and the kernels for CUDA tensors.
 
 Semantics, shared by every version and by the JAX package:
 
@@ -55,6 +59,24 @@ import torch
 
 LayerParams = Dict[str, torch.Tensor]
 Streams = Tuple[torch.Tensor, ...]
+
+# The stack's backend when a call passes "auto": "layer" (the layer kernels;
+# "auto" resolves to it) or "recurrence" (the time-major recurrence op).
+# Override per call or through this module global, as the JAX package's
+# ``ops/lstm.py:DEFAULT_BACKEND``; the models call ``bilstm`` without a
+# backend, so the global selects their path.
+DEFAULT_BACKEND = "auto"
+BACKENDS = ("layer", "recurrence")
+
+
+def resolve_backend(backend: str) -> str:
+    if backend == "auto":
+        backend = DEFAULT_BACKEND
+    if backend == "auto":
+        backend = "layer"
+    if backend not in BACKENDS:
+        raise ValueError(f"bilstm backend must be \"auto\" or one of {BACKENDS}, got {backend!r}")
+    return backend
 
 
 def _operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -371,11 +393,43 @@ def stack_layer_weights(
     )
 
 
+def bidir_layer_recurrence(
+    lp: LayerParams, x: torch.Tensor, lengths: torch.Tensor, compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One bidirectional layer over the time-major recurrence op
+    (`intrepppid_tpu/ops/lstm.py:87-180 _bidir_layer`): the input projection
+    of both directions in PyTorch (compute-dtype operands, f32 sums, plus
+    the f32 bias), direction 1 flipped in time, ``valid`` from the lengths,
+    ``fused_lstm_recurrence``, then the un-flip and the 2H concat.
+    Gradients reach ``w_ih``, the biases and ``x`` through autograd around
+    the op.
+
+    :param x: ``(B, T, E)``; ``lengths`` ``(B,)``.
+    :returns: ``(y (B, T, 2H) f32, hn (2, B, H), cn (2, B, H))``.
+    """
+    from intrepppid_tpu_torch.ops.lstm_recurrence import fused_lstm_recurrence
+
+    B, T, _ = x.shape
+    w_hh = grouped_w_hh(lp["w_hh"])
+    G = _check_groups(B, w_hh)
+    bias = lp["b_ih"].float() + lp["b_hh"].float()
+    # (T, 2, B, E): direction 1 reads time reversed
+    xt = torch.stack([x, x.flip(1)]).permute(2, 0, 1, 3)
+    w_ih_t = _operand(lp["w_ih"], compute_dtype).transpose(-1, -2)  # (2, E, 4H)
+    xg = torch.matmul(_operand(xt, compute_dtype), w_ih_t) + bias[None, :, None, :]
+    valid = _valid(T, lengths, x.device).squeeze(-1)
+    w = w_hh.to(compute_dtype).transpose(-1, -2).contiguous()  # (2, G, H, 4H)
+    hs, hn, cn = fused_lstm_recurrence(xg.contiguous(), valid, w, G, compute_dtype)
+    y = torch.cat([hs[:, 0].transpose(0, 1), hs[:, 1].transpose(0, 1).flip(1)], dim=-1)
+    return y, hn, cn
+
+
 def bilstm(
     layers: List[LayerParams],
     x: torch.Tensor,
     max_len: Optional[Union[torch.Tensor, int]] = None,
     compute_dtype: torch.dtype = torch.float32,
+    backend: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the stacked bidirectional LSTM.
 
@@ -388,10 +442,15 @@ def bilstm(
     :returns: ``(y (B, T, 2H), hn (2L, B, H), cn (2L, B, H))`` with ``hn`` in
         torch order ``[l0_fwd, l0_bwd, l1_fwd, l1_bwd, ...]``.
 
-    With grad mode on and any operand requiring grad, the stack runs as one
-    ``BiLSTMStack`` autograd unit (``ops/lstm_stack.py``); otherwise as the
-    eval forward, layer by layer, each on the route its shapes give it
-    (``lstm_cuda.layer_route``).
+    :param backend: ``"layer"``, ``"recurrence"`` or ``"auto"`` (the module
+        global ``DEFAULT_BACKEND``, which defaults to the layer kernels).
+
+    On the layer backend, with grad mode on and any operand requiring grad,
+    the stack runs as one ``BiLSTMStack`` autograd unit
+    (``ops/lstm_stack.py``); otherwise as the eval forward, layer by layer,
+    each on the route its shapes give it (``lstm_cuda.layer_route``). On the
+    recurrence backend each layer is ``bidir_layer_recurrence``, and ``y``
+    is f32.
     """
     from intrepppid_tpu_torch.ops.lstm_cuda import layer_fwd
     from intrepppid_tpu_torch.ops.lstm_stack import bilstm_stack
@@ -401,6 +460,13 @@ def bilstm(
         max_len = T
     lengths = torch.as_tensor(max_len, dtype=torch.int32, device=x.device)
     lengths = lengths.broadcast_to((B,)).contiguous()
+    if resolve_backend(backend) == "recurrence":
+        y, hns, cns = x, [], []
+        for lp in layers:
+            y, hn, cn = bidir_layer_recurrence(lp, y, lengths, compute_dtype)
+            hns.append(hn)
+            cns.append(cn)
+        return y, torch.cat(hns), torch.cat(cns)
     x_tm = x.to(compute_dtype).transpose(0, 1).contiguous()
     operands = [x] + [t for lp in layers for t in lp.values()]
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):

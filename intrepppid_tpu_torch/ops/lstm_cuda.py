@@ -36,6 +36,22 @@ packed, fused or lite kernels:
 * both routes: ``bilstm_wgrad`` launches ``csrc/bilstm_wgrad.cu``, the
   weight-gradient products. Plain twin: ``ops/lstm.py:bidir_layer_wgrad``.
 
+Beside the layer kernels, the time-major recurrence op
+(``ops/lstm_recurrence.py``, the counterpart of
+``intrepppid_tpu/ops/lstm_pallas.py``) has three kernels of its own, on the
+wide route's cluster design at every width they take:
+
+* ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
+  (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
+* ``lstm_recurrence_bwd`` launches ``csrc/lstm_recurrence_bwd.cu``, the
+  reverse-time sweep of ``lstm_pallas.py:274 _bwd_pallas`` (``dxg``).
+  Plain twin: ``recurrence_sweep``.
+* ``lstm_recurrence_wgrad`` launches ``csrc/lstm_recurrence_wgrad.cu``, that
+  kernel's ``dW`` sums. Plain twin: ``recurrence_wgrad``.
+
+These three refuse operands that require grad under grad mode for CPU
+tensors too: only ``FusedLSTMRecurrence`` calls them.
+
 ``layer_fwd`` and ``layer_bwd`` run one layer on its route. Each source's
 header says what bounds it on the card and how it is laid out. For a CPU
 tensor a wrapper runs its plain twin, so the CPU takes the same routes. For
@@ -65,6 +81,11 @@ from intrepppid_tpu_torch.ops.lstm import (
     input_gates,
     input_grads,
 )
+from intrepppid_tpu_torch.ops.lstm_recurrence import (
+    recurrence_fwd,
+    recurrence_sweep,
+    recurrence_wgrad,
+)
 
 bilstm_layer_fwd_plain = bidir_layer
 
@@ -74,7 +95,8 @@ SMEM_LIMIT = 232448
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
 # bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
-# (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu (kPad)
+# (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu and
+# lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -96,6 +118,9 @@ _SIGNATURES = {
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
                         + [_I] * 6 + [_P, _P]),
+    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -112,6 +137,13 @@ _CONSTANTS = {
     "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
                          "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
                         (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+    "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
+                             "lstm_recurrence_fwd_rows_mask"),
+                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
+    "lstm_recurrence_bwd": (("lstm_recurrence_bwd_cluster", "lstm_recurrence_bwd_max_threads",
+                             "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad"),
+                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+    "lstm_recurrence_wgrad": (("lstm_recurrence_wgrad_tile",), (WGRAD_TILE,)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -284,19 +316,19 @@ def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
 
 
 def wide_plan(kind: str, B: int, G: int, H: int,
-              max_clusters: Callable[[int, int], int]) -> Tuple[int, int, int]:
+              max_clusters: Callable[[int, int], int], dirs: int = 2) -> Tuple[int, int, int]:
     """``(rows_per_thread, tiles, smem_bytes)`` of a wide launch: the rows
-    per thread whose clusters (one per row tile and direction) fill the
-    card in the fewest waves, and among those the smallest tile.
-    ``max_clusters(rows_per_thread, smem)`` is how many clusters the card
-    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    per thread whose clusters (one per row tile and each of the ``dirs``
+    directions) fill the card in the fewest waves, and among those the
+    smallest tile. ``max_clusters(rows_per_thread, smem)`` is how many
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
     best = None
     for R in WIDE_ROWS:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
         tiles = wide_tiles(B, G, R)
-        waves = -(-2 * tiles // max(1, max_clusters(R, smem)))
+        waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
     if best is None:
@@ -307,7 +339,8 @@ def wide_plan(kind: str, B: int, G: int, H: int,
 _cluster_counts: Dict[tuple, int] = {}
 # the operands between (dtype, rows_per_thread) and (T, B, H, G, tiles,
 # smem) of each wide kernel's C entry, when it only reports occupancy
-_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3}
+_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
+                "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
@@ -857,3 +890,153 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
     dgates = bilstm_bwd_lite(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
                              hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
     return input_grads(dgates, w_ih, E_parts)
+
+
+# ------------------------------------------- the time-major recurrence op
+def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
+    """ValueError for a width or compute dtype the recurrence kernels do
+    not take."""
+    if compute_dtype not in _DTYPE_CODES or H % 32 or not 32 <= H <= WIDE_MAX_THREADS:
+        raise ValueError(
+            f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {WIDE_MAX_THREADS}}} "
+            f"(H % 32 == 0) with compute dtype float32 or bfloat16, got H={H}, {compute_dtype}")
+
+
+def _recurrence_operands(xg, valid, w, G, cd, what):
+    """Checked operands of a recurrence kernel: ``(dev, T, D, B, H, valid8)``
+    with the mask as contiguous uint8."""
+    dev = xg.device
+    if xg.dim() != 4:
+        raise ValueError(f"{what} kernel: xg must be (T, D, B, 4H), got {tuple(xg.shape)}")
+    T, D, B, H4 = xg.shape
+    H = H4 // 4
+    recurrence_check(H, cd)
+    _check("xg", xg, (T, D, B, 4 * H), torch.float32, dev)
+    _check("w", w, (D, G, H, 4 * H), cd, dev)
+    if valid.device != dev or tuple(valid.shape) != (T, D, B):
+        raise ValueError(
+            f"{what} kernel: valid must be (T, D, B) = {(T, D, B)} on {dev}, got "
+            f"{tuple(valid.shape)} on {valid.device}")
+    if B % G:
+        raise ValueError(f"{what} kernel: batch {B} is not a multiple of {G} weight groups")
+    return dev, T, D, B, H, (valid != 0).to(torch.uint8).contiguous()
+
+
+def lstm_recurrence_fwd(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The masked recurrence over time-major input gates; the contract of
+    ``ops/lstm_recurrence.py:recurrence_fwd``.
+
+    :param xg: ``(T, D, B, 4H)`` f32; ``valid`` ``(T, D, B)`` bool or int;
+        ``w`` ``(D, G, H, 4H)`` in ``compute_dtype``.
+    :returns: ``hs, cs (T, D, B, H)`` and ``hn, cn (D, B, H)``, f32.
+    """
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd = compute_dtype
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, "lstm_recurrence_fwd")
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    name = "lstm_recurrence_fwd"
+    R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd(
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles,
+            smem, torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd.launches = 0
+
+
+def lstm_recurrence_bwd(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The recurrence's backward sweep; the contract of
+    ``ops/lstm_recurrence.py:recurrence_sweep``: the masked f32 gate
+    cotangents ``dxg (T, D, B, 4H)``. ``dhs (T, D, B, H)`` and ``dhn``,
+    ``dcn (D, B, H)`` are f32, or None for zero."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd = compute_dtype
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, "lstm_recurrence_bwd")
+    for name, t, shape in (("hs", hs, (T, D, B, H)), ("cs", cs, (T, D, B, H)),
+                           ("dhs", dhs, (T, D, B, H)), ("dhn", dhn, (D, B, H)),
+                           ("dcn", dcn, (D, B, H))):
+        if t is not None:
+            _check(name, t, shape, torch.float32, dev)
+    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * D * T == 0:
+        return dxg
+    name = "lstm_recurrence_bwd"
+    R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_bwd(
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), ptr(dhs), ptr(dhn), ptr(dcn), dxg.data_ptr(),
+            D, T, B, H, G, tiles, smem, torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_bwd.launches += 1
+    return dxg
+
+
+lstm_recurrence_bwd.launches = 0
+
+
+def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,
+                          compute_dtype: torch.dtype) -> torch.Tensor:
+    """The recurrence's weight gradient; the contract of
+    ``ops/lstm_recurrence.py:recurrence_wgrad``: ``dw (D, G, H, 4H)`` f32
+    from ``hs (T, D, B, H)`` and ``dxg (T, D, B, 4H)``, both f32, rounded
+    to ``compute_dtype`` as they are read."""
+    _no_graph(hs, dxg)
+    if not hs.is_cuda:
+        return recurrence_wgrad(hs, dxg, G, compute_dtype)
+    cd = compute_dtype
+    dev = hs.device
+    if hs.dim() != 4:
+        raise ValueError(f"lstm_recurrence_wgrad kernel: hs must be (T, D, B, H), "
+                         f"got {tuple(hs.shape)}")
+    T, D, B, H = hs.shape
+    recurrence_check(H, cd)
+    _check("hs", hs, (T, D, B, H), torch.float32, dev)
+    _check("dxg", dxg, (T, D, B, 4 * H), torch.float32, dev)
+    if B % G:
+        raise ValueError(f"lstm_recurrence_wgrad kernel: batch {B} is not a multiple of "
+                         f"{G} weight groups")
+    tiles_y = (4 * H // WGRAD_TILE) * -(-H // WGRAD_TILE)
+    splits = max(1, min(T, math.ceil(WGRAD_TARGET_BLOCKS / (tiles_y * D * G))))
+    partial = torch.empty((splits, D, G, H, 4 * H), dtype=torch.float32, device=dev)
+    if B * D == 0 or T <= 1:
+        partial.zero_()
+    else:
+        name = "lstm_recurrence_wgrad"
+        with torch.cuda.device(dev):
+            err = _kernels(name).lstm_recurrence_wgrad(
+                _DTYPE_CODES[cd], hs.data_ptr(), dxg.data_ptr(), partial.data_ptr(),
+                D, T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on_error(name, err)
+        lstm_recurrence_wgrad.launches += 1
+    return partial.sum(dim=0)
+
+
+lstm_recurrence_wgrad.launches = 0

@@ -33,7 +33,7 @@ def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"lstm.py", "lstm_cuda.py", "lstm_stack.py", "dropout.py", "losses.py",
             "metrics.py", "ranger21.py", "schedules.py", "trainer.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "lstm_recurrence.py", "infer.py", "chip_smoke.py"} <= names
 
 
 def test_every_kernel_source_is_built_and_bound():
@@ -43,7 +43,8 @@ def test_every_kernel_source_is_built_and_bound():
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
-                       "bilstm_fwd_wide", "bilstm_bwd_lite"}
+                       "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
+                       "lstm_recurrence_bwd", "lstm_recurrence_wgrad"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -64,3 +65,16 @@ def test_default_device_is_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     net = intrepppid_network(0, vocab_size=30, embedding_size=8, device="cpu")
     assert all(p.device.type == "cpu" for p in net.parameters())
+
+
+def test_infer_default_device_is_the_card(monkeypatch, tmp_path):
+    """``Infer.from_csv`` without ``device="cpu"`` refuses on a machine
+    without a card, before it reads or writes any file."""
+    from intrepppid_tpu_torch.cli.infer import Infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out.csv"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Infer.from_csv(tmp_path / "pairs.csv", tmp_path / "seqs.fasta", tmp_path / "m.ckpt",
+                       tmp_path / "spm.model", out)
+    assert not out.exists()

@@ -1,8 +1,9 @@
 """The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
-the eval and train forward, the backward sweep, the weight gradients, and
-the wide route's input gates, cluster forward and lite sweep), their plain
-PyTorch versions (``ops/lstm.py``) and the stack's autograd
-(``ops/lstm_stack.py``), without JAX.
+the eval and train forward, the backward sweep, the weight gradients, the
+wide route's input gates, cluster forward and lite sweep, and the
+time-major recurrence op's forward, sweep and weight gradient), their plain
+PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
+autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
 
 On the CPU each wrapper takes its plain version. The tests marked ``cuda``
 hold each CUDA kernel against its plain version on the card and skip
@@ -23,6 +24,13 @@ from intrepppid_tpu_torch.ops.lstm import (
     bidir_layer_wgrad,
     bidir_recurrence,
     input_gates,
+)
+from intrepppid_tpu_torch.ops.lstm_recurrence import (
+    fused_lstm_recurrence,
+    recurrence_bwd,
+    recurrence_fwd,
+    recurrence_sweep,
+    recurrence_wgrad,
 )
 
 
@@ -263,6 +271,122 @@ def test_model_backward_reaches_every_lstm_weight():
         assert float(grad.abs().sum()) > 0, name
 
 
+# ------------------------------------------------ the time-major recurrence
+def recurrence_case(T, D, B, H, G, dtype, dev, mask, seed=0):
+    """Operands of the recurrence op: ``mask`` "lengths" builds ``valid``
+    as the layer does (a prefix for direction 0, a suffix for the others,
+    lengths mixing 0, 1, T and random values), "holes" draws it at random
+    with an all-zero and an all-one row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+    xg = u(T, D, B, 4 * H)
+    w = (u(D, G, H, 4 * H) * H ** -0.5).to(dtype).contiguous()
+    if mask == "lengths":
+        lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev)
+        lengths[:3] = torch.tensor([0, 1, T], device=dev)
+        steps = torch.arange(T, device=dev)
+        fwd = steps[:, None] < lengths[None, :]
+        rev = (T - 1 - steps)[:, None] < lengths[None, :]
+        valid = torch.stack([fwd] + [rev] * (D - 1), dim=1)
+    else:
+        valid = torch.rand(T, D, B, generator=g, device=dev) < 0.7
+        valid[:, :, 0] = False
+        valid[:, :, 1] = True
+    return xg, valid, w, u(T, D, B, H), u(D, B, H), u(D, B, H)
+
+
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+def test_recurrence_wrappers_take_plain_versions_on_cpu(mask):
+    T, D, B, H, G = 6, 2, 6, 8, 2
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, torch.float32,
+                                                  torch.device("cpu"), mask)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
+                lstm_cuda.lstm_recurrence_wgrad)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, torch.float32)
+    want = recurrence_fwd(xg, valid, w, G, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    hs, cs = want[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, torch.float32)
+    dxg = lstm_cuda.lstm_recurrence_bwd(*args)
+    assert torch.equal(dxg, recurrence_sweep(*args))
+    dw = lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, torch.float32)
+    assert torch.equal(dw, recurrence_wgrad(hs, dxg, G, torch.float32))
+    ref = recurrence_bwd(*args)
+    assert torch.equal(ref[0], dxg) and torch.equal(ref[1], dw)
+    assert [f.launches for f in wrappers] == before
+    # a frozen step writes the state it found, and its gate cotangent is zero
+    off = ~valid
+    assert torch.all(dxg[off] == 0)
+    assert torch.equal(hs[1:][off[1:]], hs[:-1][off[1:]])
+    assert torch.all(hs[0][off[0]] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recurrence_plain_backward_matches_autograd(dtype):
+    """``recurrence_bwd`` against autograd through ``recurrence_fwd`` (f32;
+    in bf16 autograd rounds the cotangents where the op does not, so only
+    the autograd unit's plumbing is held: same values as the plain pair)."""
+    T, D, B, H, G = 7, 3, 4, 8, 2
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, dtype, torch.device("cpu"),
+                                                  "holes", seed=3)
+    hs, cs, hn, cn = recurrence_fwd(xg, valid, w, G, dtype)
+    dxg, dw = recurrence_bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
+    assert dw.dtype == w.dtype and dxg.dtype == torch.float32
+    xg_g, w_g = xg.clone().requires_grad_(), w.clone().requires_grad_()
+    out = fused_lstm_recurrence(xg_g, valid, w_g, G, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(out, (hs, hn, cn)))
+    torch.autograd.backward(out, [dhs, dhn, dcn])
+    assert torch.equal(xg_g.grad, dxg) and torch.equal(w_g.grad, dw)
+    if dtype == torch.float32:
+        xg_a, w_a = xg.clone().requires_grad_(), w.clone().requires_grad_()
+        ref = recurrence_fwd(xg_a, valid, w_a, G, dtype)
+        gx, gw = torch.autograd.grad([ref[0], ref[2], ref[3]], [xg_a, w_a], [dhs, dhn, dcn])
+        assert float((gx - dxg).abs().max()) <= 1e-5
+        assert float((gw - dw).abs().max()) <= 1e-5
+    # only hn read: the other cotangents arrive as None
+    xg_g.grad = w_g.grad = None
+    fused_lstm_recurrence(xg_g, valid, w_g, G, dtype)[1].backward(dhn)
+    only = recurrence_bwd(xg, valid, w, hs, cs, None, dhn, None, G, dtype)
+    assert torch.equal(xg_g.grad, only[0]) and torch.equal(w_g.grad, only[1])
+
+
+def test_recurrence_wrappers_refuse_operands_that_require_grad():
+    """The wrappers' outputs carry no graph on the card, so under grad mode
+    they refuse a differentiable operand, on the CPU too: the autograd unit
+    ``fused_lstm_recurrence`` is the way in."""
+    T, D, B, H, G = 4, 2, 4, 8, 1
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, torch.float32,
+                                                  torch.device("cpu"), "holes")
+    hs, cs, _, _ = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, torch.float32)
+    dxg = lstm_cuda.lstm_recurrence_bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, G, torch.float32)
+    wg = w.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, wg, G, torch.float32)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd(xg, valid, wg, hs, cs, dhs, dhn, dcn, G, torch.float32)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_wgrad(hs, dxg.requires_grad_(), G, torch.float32)
+    with torch.no_grad():
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, wg, G, torch.float32)
+    assert fused_lstm_recurrence(xg, valid, wg, G, torch.float32)[0].requires_grad
+
+
+@pytest.mark.parametrize("H,dtype,ok", [(32, torch.float32, True), (64, torch.bfloat16, True),
+                                        (256, torch.bfloat16, True), (8, torch.float32, False),
+                                        (288, torch.float32, False), (48, torch.float32, False),
+                                        (64, torch.float16, False)])
+def test_recurrence_check(H, dtype, ok):
+    if ok:
+        lstm_cuda.recurrence_check(H, dtype)
+    else:
+        with pytest.raises(ValueError, match="H % 32 == 0"):
+            lstm_cuda.recurrence_check(H, dtype)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -422,3 +546,81 @@ def test_kernel_rejects_bad_operands_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih.requires_grad_(), w_hh, bias,
                                    torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (256, 5, 60, 2),
+                                     (32, 3, 24, 2), (64, 2, 20, 1), (128, 1, 9, 3)])
+def test_recurrence_kernels_match_plain_on_card(cuda_device, dtype, H, G, B, D, mask):
+    """The recurrence op's forward, sweep and weight gradient against their
+    plain versions: masks from lengths and masks with holes, groups of 12,
+    8 and 10 rows that leave short row tiles, D = 1, 2 and 3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T = 24
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, dtype, cuda_device, mask)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+
+    def close(got, want):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= tol * max(
+                1.0, float(b.float().abs().max()))
+
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
+                lstm_cuda.lstm_recurrence_wgrad)
+    before = [f.launches for f in wrappers]
+    ref = recurrence_fwd(xg, valid, w, G, dtype)
+    close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, dtype), ref)
+    hs, cs = ref[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
+    dxg = recurrence_sweep(*args)
+    close([lstm_cuda.lstm_recurrence_bwd(*args)], [dxg])
+    none = (xg, valid, w, hs, cs, None, dhn, None, G, dtype)
+    close([lstm_cuda.lstm_recurrence_bwd(*none)], [recurrence_sweep(*none)])
+    close([lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, dtype)],
+          [recurrence_wgrad(hs, dxg, G, dtype)])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 2, 1]
+
+
+@pytest.mark.cuda
+def test_recurrence_autograd_on_card(cuda_device):
+    """``fused_lstm_recurrence`` on the card: gradients for xg and w through
+    the kernels, equal to the CPU plain path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, D, B, H, G = 20, 2, 30, 64, 5
+    cpu = recurrence_case(T, D, B, H, G, torch.float32, torch.device("cpu"), "holes")
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xg, valid, w, dhs, dhn, dcn = (t.to(dev) for t in cpu)
+        xg.requires_grad_(), w.requires_grad_()
+        out = fused_lstm_recurrence(xg, valid, w, G, torch.float32)
+        torch.autograd.backward(out, [dhs, dhn, dcn])
+        grads[dev.type] = (xg.grad.cpu(), w.grad.cpu(), *(o.detach().cpu() for o in out))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_recurrence_kernel_rejects_bad_operands_on_card(cuda_device):
+    T, D, B, G = 4, 2, 4, 1
+    valid = torch.ones(T, D, B, dtype=torch.bool, device=cuda_device)
+
+    def operands(H, dtype=torch.float32):
+        return (torch.zeros(T, D, B, 4 * H, device=cuda_device), valid,
+                torch.zeros(D, G, H, 4 * H, device=cuda_device, dtype=dtype), G)
+
+    with pytest.raises(ValueError, match="H % 32 == 0"):
+        lstm_cuda.lstm_recurrence_fwd(*operands(8), torch.float32)
+    with pytest.raises(ValueError, match="H % 32 == 0"):
+        lstm_cuda.lstm_recurrence_fwd(*operands(64, torch.float16), torch.float16)
+    with pytest.raises(ValueError, match="bilstm kernel: w"):
+        lstm_cuda.lstm_recurrence_fwd(*operands(64, torch.bfloat16), torch.float32)
+    xg, _, w, _ = operands(64)
+    with pytest.raises(ValueError, match="weight groups"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w.expand(D, 3, 64, 256).contiguous(), 3,
+                                      torch.float32)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd(xg.requires_grad_(), valid, w, G, torch.float32)
