@@ -23,19 +23,26 @@ exits non-zero with no result):
    checked against the port's CPU plain forward, and the kernel's launch
    counter must rise during the requests;
 4. train_kernel — the train step's kernels (the forward's train variant,
-   the backward sweep and the weight-gradient kernel) against their plain
-   versions at the train shapes (400 rows in 5 weight groups of 80,
+   the two backward sweeps and the weight-gradient kernel) against their
+   plain versions at the train shapes (400 rows in 5 weight groups of 80,
    T = 1500, H = 64, layer 0 at E = 64 with grouped W_hh and layer 1 at
    E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
-   per-group maxima; then each kernel, its plain version and a PyTorch
-   yardstick (cuDNN forward and backward-data, cuBLAS products) timed with
-   CUDA events at full lengths, TF32 off;
+   per-group maxima: in bf16 the sweep is the tensor-core kernel
+   (``bilstm_bwd_mma``), and the CUDA-core one (``bilstm_bwd``), asked for
+   by name, is held too; a ragged case (27 rows in 3 groups, T = 1); then
+   each kernel (in bf16 both sweeps, in the same run) and a PyTorch
+   yardstick (cuDNN forward and backward-data in f32 and in bf16, cuBLAS
+   products) timed with CUDA events at full lengths, TF32 off; the plain
+   versions are timed once, in the check;
 5. train — ``intrepppid_network(compute_dtype=bfloat16,
    optimizer_type="ranger21_xx")`` on the card and the port's ``Trainer``
    on synthetic quintuplet batches (80 pairs, T = 1500, dropout on): 2
    warm-up steps, 12 timed steps, a profiled step, and each train kernel's
-   launch count, which must be > 0; then one step's gradients on the card
-   held against the port's CPU plain path at a small size;
+   launch count: the forward, ``bilstm_bwd_mma`` and wgrad must be > 0 and
+   the CUDA-core sweep 0; then 2 steps of the same model in f32, whose
+   sweep must be ``bilstm_bwd`` alone; then one step's gradients on the
+   card held against the port's CPU plain path at a small size, in f32
+   and in bf16;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -55,15 +62,21 @@ exits non-zero with no result):
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
    groups, and H = 32 at T = 300; f32 and bf16; masks built from lengths
    (mixing 0, 1, T and random values; a suffix for the reverse direction)
-   and a random mask with holes, an all-zero and an all-one row. Each is
-   timed with CUDA events beside its plain version and a PyTorch yardstick
-   (one bidirectional ``nn.LSTM`` layer at full lengths, which also does
-   the input projection; cuBLAS for the weight gradient);
+   and a random mask with holes, an all-zero and an all-one row. In bf16
+   at H = 64 and 32 the sweep is the tensor-core kernel
+   (``lstm_recurrence_bwd_mma``), and the cluster one, asked for by name,
+   is held and timed beside it; a ragged case (27 rows in 3 groups,
+   T = 1). Each is timed with CUDA events beside its plain version and a
+   PyTorch yardstick (one bidirectional ``nn.LSTM`` layer at full lengths,
+   in f32 and at H = 64 in bf16, which also does the input projection;
+   cuBLAS for the weight gradient);
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
-   steps, one eval step): the recurrence kernels' launch counts must be
-   > 0 and the layer kernels' stay 0; a profiled step, peak memory, and
-   the card's gradients against the CPU's on the same backend;
+   steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
+   wgrad must be > 0, the cluster sweep and the layer kernels 0; then 2
+   f32 steps, whose sweep must be the cluster kernel alone; a profiled
+   step, peak memory, and the card's gradients against the CPU's on the
+   same backend, in f32 and in bf16;
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -121,7 +134,12 @@ def emit(obj) -> None:
 def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
-    from intrepppid_tpu_torch.ops.lstm_cuda import bwd_launch_plan, launch_plan
+    from intrepppid_tpu_torch.ops.lstm_cuda import (
+        bwd_launch_plan,
+        bwd_mma_plan,
+        launch_plan,
+        recurrence_mma_smem,
+    )
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
@@ -140,6 +158,10 @@ def phase_build() -> dict:
         for dtype in (torch.float32, torch.bfloat16)
         for E in (E_SERVE, 2 * H_SERVE)
     }
+    for E_parts in ([E_SERVE], [H_SERVE, H_SERVE]):
+        smem[f"bwd_mma bfloat16 E={sum(E_parts)}"] = bwd_mma_plan(
+            E_parts, H_SERVE, torch.bfloat16)[1]
+    smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -317,7 +339,7 @@ def random_jax_params(seed: int, V=250, E=64, L=2) -> dict:
 
 def profile_device(fn, top: int = 6, groups=None) -> dict:
     """Wall and device time of ``fn()`` under ``torch.profiler``: the sum
-    of the device events' durations (one stream, so they do not overlap),
+    of the kernels' and copies' durations (one stream, so they do not overlap),
     the idle share of the wall time, the device time by kernel name, and
     the host operators' own time (what keeps the host from feeding the
     device). ``groups`` maps a label to a substring of kernel names (or a
@@ -333,7 +355,11 @@ def profile_device(fn, top: int = 6, groups=None) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     by_name: dict = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels and copies only: a user annotation (the optimizer's
+        # "Optimizer.step#..." span) is mirrored onto the device timeline
+        # and would count the kernels under it twice
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not (
+                getattr(evt, "is_user_annotation", False) or evt.name.startswith("Optimizer.")):
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     device_us = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
@@ -542,56 +568,142 @@ def add_bounds(t: dict, work: dict, dtype) -> None:
         t[f"{k}_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
 
 
+def cudnn_stack_times(dev, dtype) -> dict:
+    """cuDNN yardstick: the manuscript two-layer bidirectional ``nn.LSTM`` at
+    the train shape in ``dtype``, TF32 off: the training-mode forward, then
+    the backward for the input alone and for input and weights (each the
+    forward and backward together, less the forward)."""
+    H = H_SERVE
+    lstm = torch.nn.LSTM(E_SERVE, H, num_layers=2, bidirectional=True).to(dev).to(dtype)
+    lstm.flatten_parameters()
+    x = (torch.rand(T_TRAIN, B_TRAIN, E_SERVE, device=dev) * 2 - 1).to(dtype).requires_grad_()
+    dy = (torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1).to(dtype)
+    fwd_ms = time_ms(lambda: lstm(x), 5)
+    full_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 5)
+    for p in lstm.parameters():
+        p.requires_grad_(False)
+    data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 5)
+    return {"cudnn_fwd_ms": fwd_ms, "cudnn_fwd_bwd_ms": full_ms,
+            "cudnn_bwd_data_ms": data_ms - fwd_ms, "cudnn_bwd_ms": full_ms - fwd_ms}
+
+
+def sweep_names(dxf, dxb):
+    """Names of a sweep's outputs, in the order (*dxf, *dxb, dgc, dbias)."""
+    return ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
+            + ["dgc", "dbias"])
+
+
+def ragged_sweep_check(dev) -> list:
+    """The tensor-core sweep against its twin where no size is round: 27
+    rows in 3 weight groups of 9 (a short tile in each group), T = 1, both
+    layer shapes, bf16."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_sweep
+
+    cd, H, B, G, T = torch.bfloat16, H_SERVE, 27, 3, 1
+    out = []
+    for i, E_parts in enumerate(([E_SERVE], [H, H])):
+        g = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+
+        def u(*shape, scale=1.0):
+            return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
+
+        parts = tuple(u(T, B, e).to(cd) for e in E_parts)
+        w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(cd)
+        w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
+        bias = u(2, 4 * H)
+        lengths = torch.ones(B, dtype=torch.int32, device=dev)
+        lengths[::5] = 0
+        ny = 2 - i
+        dyf = tuple(u(T, B, H).to(cd) for _ in range(ny))
+        dyb = tuple(u(T, B, H).to(cd) for _ in range(ny))
+        hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                                   with_states=True)
+        args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                u(2, B, H), u(2, B, H), cd)
+        got, want = L.bilstm_bwd_mma(*args), bidir_layer_sweep(*args)
+        torch.cuda.synchronize()
+        flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+        res = {n: rel_err(a, b, TOL[cd])
+               for n, a, b in zip(sweep_names(*got[:2]), flat(got), flat(want))}
+        check = {"kernel": "bilstm_bwd_mma", "B": B, "G": G, "T": T, "H": H, "E_parts": E_parts,
+                 "dtype": "bfloat16", "max_abs_err": {n: e for n, (e, _) in res.items()},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "train_kernel", "failed": check})
+            raise AssertionError(f"the ragged sweep disagrees with its plain version: {check}")
+    return out
+
+
 def phase_train_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
-    from intrepppid_tpu_torch.ops.lstm import (
-        bidir_layer_bwd,
-        bidir_layer_sweep,
-        bidir_layer_wgrad,
-    )
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     layers = [([E_SERVE], G_TRAIN), ([H_SERVE, H_SERVE], 1)]
     H = H_SERVE
     err = rel_err
     checks = []
+    # the plain versions (Python loops over T) are timed here, once each
+    plain_ms = {torch.float32: {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0},
+                torch.bfloat16: {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0}}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (E_parts, G) in enumerate(layers):
+            if L.sweep_kernel(E_parts, H, dtype) != (
+                    "bilstm_bwd_mma" if dtype == torch.bfloat16 else "bilstm_bwd"):
+                raise AssertionError(f"unexpected sweep kernel for {E_parts}, {dtype}")
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
                 E_parts, H, G, dtype, dev, SEED + 10 + i)
             got = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
-            want = L.bilstm_layer_fwd_plain(parts, lengths, w_ih, w_hh, bias, dtype,
-                                            with_states=True)
+            want, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(
+                parts, lengths, w_ih, w_hh, bias, dtype, with_states=True))
+            plain_ms[dtype]["fwd"] += ms
             hs_f, hs_b, _, _, cs_f, cs_b = want
             names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
             res = {n: err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)}
             del got
-            dxf, dxb, dgc, dbias = L.bilstm_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b,
-                                                cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
-            dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
-            ref = bidir_layer_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                                  dyf, dyb, dhn, dcn, dtype)
-            torch.cuda.synchronize()
-            grads = list(dxf) + list(dxb) + [dw_ih, dw_hh, dbias]
+            bwd_args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                        dhn, dcn, dtype)
+            ref, ms = timed_once(lambda: bidir_layer_sweep(*bwd_args))
+            plain_ms[dtype]["bwd"] += ms
+            ref_w, ms = timed_once(lambda: bidir_layer_wgrad(ref[2], parts, hs_f, hs_b, G))
+            plain_ms[dtype]["wgrad"] += ms
             refs = list(ref[0]) + list(ref[1]) + list(ref[2:])
-            gnames = ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
-                      + ["dW_ih", "dW_hh", "dbias"])
-            res.update({n: err(a, b, TOL[dtype]) for n, a, b in zip(gnames, grads, refs)})
+            gnames = sweep_names(*ref[:2])
+            # the sweep the dispatch picks (bf16: the tensor-core kernel), and
+            # in bf16 also the CUDA-core kernel by name
+            dxf, dxb, dgc, dbias = L.bilstm_bwd(*bwd_args)
+            res.update({n: err(a, b, TOL[dtype])
+                        for n, a, b in zip(gnames, list(dxf) + list(dxb) + [dgc, dbias], refs)})
+            if dtype == torch.bfloat16:
+                old = L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")
+                res.update({f"cuda_core_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(
+                    gnames, list(old[0]) + list(old[1]) + list(old[2:]), refs)})
+                del old
+            dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+            res["dW_ih"], res["dW_hh"] = (err(dw_ih, ref_w[0], TOL[dtype]),
+                                          err(dw_hh, ref_w[1], TOL[dtype]))
+            torch.cuda.synchronize()
             check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
                      "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
+                     "sweep": L.sweep_kernel(E_parts, H, dtype),
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
             checks.append(check)
-            del parts, want, ref, grads, refs, dgc, dxf, dxb
+            del parts, want, ref, ref_w, refs, dgc, dxf, dxb, bwd_args
             if not all(ok for _, ok in res.values()):
                 emit({"phase": "train_kernel", "failed": check})
                 raise AssertionError(f"a train kernel disagrees with its plain version: {check}")
+    ragged = ragged_sweep_check(dev)
 
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         size = torch.empty((), dtype=dtype).element_size()
-        t = {k: 0.0 for k in ("fwd_ms", "bwd_ms", "wgrad_ms", "fwd_plain_ms", "bwd_plain_ms",
-                              "wgrad_plain_ms", "wgrad_library_ms")}
+        t = {k: 0.0 for k in ("fwd_ms", "bwd_ms", "wgrad_ms", "wgrad_library_ms")}
+        t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items()})
+        if dtype == torch.bfloat16:
+            t["bwd_cuda_core_ms"] = 0.0
         work = {k: [0.0, 0.0] for k in ("fwd", "bwd", "wgrad")}
         for i, (E_parts, G) in enumerate(layers):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
@@ -603,36 +715,27 @@ def phase_train_kernel(dev) -> dict:
             dgc = L.bilstm_bwd(*bwd_args)[2]
             t["fwd_ms"] += time_ms(lambda: L.bilstm_layer_fwd_train(*fwd_args), 5)
             t["bwd_ms"] += time_ms(lambda: L.bilstm_bwd(*bwd_args), 5)
+            if dtype == torch.bfloat16:
+                # new, old, old, new: both sweeps in one run, on one card
+                old_a = time_ms(lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd"), 3)
+                old_b = time_ms(lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd"), 3)
+                t["bwd_cuda_core_ms"] += 0.5 * (old_a + old_b)
+                t["bwd_ms_again"] = t.get("bwd_ms_again", 0.0) + time_ms(
+                    lambda: L.bilstm_bwd(*bwd_args), 5)
             t["wgrad_ms"] += time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 5)
-            t["fwd_plain_ms"] += time_ms(
-                lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True), 1)
-            t["bwd_plain_ms"] += time_ms(lambda: bidir_layer_sweep(*bwd_args), 1)
-            t["wgrad_plain_ms"] += time_ms(
-                lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 2)
             t["wgrad_library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 5)
             for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
             del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args
         add_bounds(t, work, dtype)
+        t["sweep"] = "bilstm_bwd_mma" if dtype == torch.bfloat16 else "bilstm_bwd"
+        # the yardstick the port never calls: cuDNN in the same dtype
+        t.update(cudnn_stack_times(dev, dtype))
         timings[name] = t
 
-    # cuDNN yardstick: the same two-layer bidirectional stack, f32, TF32 off,
-    # training-mode forward, then the backward for the input alone and for
-    # input and weights
-    lstm = torch.nn.LSTM(E_SERVE, H, num_layers=2, bidirectional=True).to(dev)
-    x = (torch.rand(T_TRAIN, B_TRAIN, E_SERVE, device=dev) * 2 - 1).requires_grad_()
-    dy = torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1
-    fwd_ms = time_ms(lambda: lstm(x), 5)
-    full_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 5)
-    for p in lstm.parameters():
-        p.requires_grad_(False)
-    data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 5)
-    del lstm, x, dy
-    timings["float32"].update({"cudnn_fwd_ms": fwd_ms, "cudnn_fwd_bwd_ms": full_ms,
-                               "cudnn_bwd_data_ms": data_ms - fwd_ms,
-                               "cudnn_bwd_ms": full_ms - fwd_ms})
-    out = {"phase": "train_kernel", "checks": checks, "timings": timings,
+    out = {"phase": "train_kernel", "checks": checks, "ragged_checks": ragged,
+           "timings": timings,
            "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
                      "layers": "E=64 (grouped W_hh) + E=2x64"}}
     emit(out)
@@ -661,12 +764,14 @@ def train_counters():
     from intrepppid_tpu_torch.ops import lstm_cuda as L
 
     return {"bilstm_layer_fwd_train": L.bilstm_layer_fwd_train,
-            "bilstm_bwd": L.bilstm_bwd, "bilstm_wgrad": L.bilstm_wgrad,
+            "bilstm_bwd": L.bilstm_bwd, "bilstm_bwd_mma": L.bilstm_bwd_mma,
+            "bilstm_wgrad": L.bilstm_wgrad,
             "bilstm_layer_fwd": L.bilstm_layer_fwd, "bilstm_gates": L.bilstm_gates,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
+            "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
             "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad}
 
 
@@ -695,56 +800,99 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
-        groups={"fwd": "bilstm_layer_fwd_kernel", "sweep": "bilstm_bwd_kernel",
-                "wgrad": "bilstm_wgrad_kernel"})
+        groups={"fwd": "bilstm_layer_fwd_kernel", "sweep_mma": "bilstm_bwd_mma_kernel",
+                "sweep_cuda_core": "bilstm_bwd_kernel", "wgrad": "bilstm_wgrad_kernel"})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
-    missing = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_wgrad")
+    missing = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd_mma", "bilstm_wgrad")
                if launches[n] <= 0]
-    if missing:
-        raise AssertionError(f"the train steps never launched {missing}")
+    if missing or launches["bilstm_bwd"] != 0:
+        raise AssertionError(
+            f"the bf16 train steps never launched {missing}, or ran the CUDA-core sweep "
+            f"{launches['bilstm_bwd']} times")
     del trainer, net
+    f32 = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_wgrad"),
+                    ("bilstm_bwd_mma",))
     grad_check = train_grad_check(dev)
+    grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
            "optimizer": "ranger21_xx", "dropout": 0.3, "step_ms": step_ms,
            "median_step_ms": median, "pairs_per_s": PAIRS_TRAIN / median * 1e3,
            "losses": losses, "launches": launches, "peak_memory_gib": peak_gib,
-           "step_profile": breakdown, "grad_check": grad_check}
+           "step_profile": breakdown, "float32_steps": f32, "grad_check": grad_check,
+           "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
 
-def train_grad_check(dev, pairs=8, T=64, **widths) -> dict:
+def f32_steps(dev, batches, expect, never, steps=2) -> dict:
+    """The same train step with the model in f32 (the factory's default
+    compute dtype), a main path of its own: the counts are set to 0 just
+    before and read just after. The dispatch is by dtype: the kernels in
+    ``expect`` must launch and those in ``never`` must not."""
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.train import Trainer
+
+    net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.float32,
+                             optimizer_type="ranger21_xx", device=dev, seed=SEED)
+    trainer = Trainer(net, seed=SEED)
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        losses.append(trainer.train_step(batches[i % len(batches)])["loss"].item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite f32 train loss: {losses}")
+    missing = [n for n in expect if launches[n] <= 0]
+    wrong = [n for n in never if launches[n] != 0]
+    if missing or wrong:
+        raise AssertionError(f"the f32 train steps never launched {missing} or ran {wrong}")
+    return {"dtype": "float32", "steps": steps, "step_ms": step_ms, "losses": losses,
+            "launches": launches}
+
+
+def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
     """One step's gradients on the card (the kernels) against the port's CPU
-    plain path: same seeded weights and batch, every dropout rate 0, f32;
+    plain path: same seeded weights and batch, every dropout rate 0;
     ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
-    Tolerance 1e-4 x max(1, max|grad|) per parameter: f32 sums in another
-    order, on the card and in the kernels, over T x 5 x pairs rows."""
+    f32: tolerance 1e-4 x max(1, max|grad|) per parameter (f32 sums in
+    another order, on the card and in the kernels, over T x 5 x pairs rows).
+    bf16: 2^-7 x max(1, max|grad|): the streams (hs, cs, dgc, dx) are bf16
+    on both sides and the kernels sum in another order, so a stream value
+    may land one bf16 ulp (2^-8 relative) apart, and the tensor-core sweep
+    takes its sigmoid and tanh from ex2 and a fast reciprocal."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
 
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     batch = quintuplet_batch(np.random.default_rng(SEED + 1), pairs, T)
     grads = {}
     for device in (dev, torch.device("cpu")):
         net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
+                                 compute_dtype=dtype,
                                  rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0,
                                  **widths)
         tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
         loss.backward()
-        grads[device.type] = {n: p.grad.detach().cpu() for n, p in net.named_parameters()
-                              if p.grad is not None}
+        grads[device.type] = {n: p.grad.detach().float().cpu()
+                              for n, p in net.named_parameters() if p.grad is not None}
     errs = {}
     for name, ref in grads["cpu"].items():
         got = grads["cuda"][name]
         errs[name] = float((got - ref).abs().max())
-        if not errs[name] <= 1e-4 * max(1.0, float(ref.abs().max())):
+        if not errs[name] <= tol * max(1.0, float(ref.abs().max())):
             raise AssertionError(f"card gradient of {name} differs from the CPU's by {errs[name]}")
     if set(grads["cpu"]) != set(grads["cuda"]) or not any(
             n.startswith("encoder.lstm.") for n in grads["cuda"]):
         raise AssertionError("the card's step did not reach the same parameters")
-    return {"pairs": pairs, "T": T, "dtype": "float32", "params": len(errs), **widths,
-            "max_abs_err": max(errs.values()), "tol": "1e-4 x max(1, max|grad|)"}
+    return {"pairs": pairs, "T": T, "dtype": str(dtype).replace("torch.", ""),
+            "params": len(errs), **widths, "max_abs_err": max(errs.values()),
+            "tol": f"{tol} x max(1, max|grad|)"}
 
 
 # ------------------------------------------------------------ wide kernels
@@ -1103,19 +1251,45 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def recurrence_library(T, H, dev, B=B_TRAIN):
-    """cuDNN yardstick, f32, TF32 off: one bidirectional ``nn.LSTM`` layer
-    (input width H) at full lengths. It also does the input projection,
-    which the op takes precomputed. Training-mode forward, and the backward
-    for the input alone (training forward and backward, less the forward)."""
-    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(dev)
-    x = (torch.rand(T, B, H, device=dev) * 2 - 1).requires_grad_()
-    dy = torch.rand(T, B, 2 * H, device=dev) * 2 - 1
+def recurrence_library(T, H, dev, B=B_TRAIN, dtype=torch.float32):
+    """cuDNN yardstick in ``dtype``, TF32 off: one bidirectional ``nn.LSTM``
+    layer (input width H) at full lengths. It also does the input
+    projection, which the op takes precomputed. Training-mode forward, and
+    the backward for the input alone (training forward and backward, less
+    the forward)."""
+    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(dev).to(dtype)
+    lstm.flatten_parameters()
+    x = (torch.rand(T, B, H, device=dev) * 2 - 1).to(dtype).requires_grad_()
+    dy = (torch.rand(T, B, 2 * H, device=dev) * 2 - 1).to(dtype)
     fwd_ms = time_ms(lambda: lstm(x), 3)
     for prm in lstm.parameters():
         prm.requires_grad_(False)
     data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 3)
     return fwd_ms, data_ms - fwd_ms
+
+
+def ragged_recurrence_check(dev) -> list:
+    """The tensor-core recurrence sweep against its twin where no size is
+    round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+
+    cd, out = torch.bfloat16, []
+    for mask in ("lengths", "holes"):
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(1, H_SERVE, 3, cd, dev, mask,
+                                                        SEED + 80, B=27)
+        hs, cs, _, _ = recurrence_fwd(xg, valid, w, 3, cd)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, 3, cd)
+        e, ok = rel_err(L.lstm_recurrence_bwd_mma(*args), recurrence_sweep(*args), TOL[cd])
+        torch.cuda.synchronize()
+        check = {"kernel": "lstm_recurrence_bwd_mma", "B": 27, "G": 3, "T": 1, "D": D_REC,
+                 "H": H_SERVE, "dtype": "bfloat16", "mask": mask, "max_abs_err": {"dxg": e},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not ok:
+            emit({"phase": "recurrence_kernel", "failed": check})
+            raise AssertionError(f"the ragged recurrence sweep disagrees with its twin: {check}")
+    return out
 
 
 def phase_recurrence_kernel(dev) -> dict:
@@ -1142,12 +1316,19 @@ def phase_recurrence_kernel(dev) -> dict:
                 hs, cs = ref[:2]
                 args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
                 dxg, bwd_plain_ms = timed_once(lambda: recurrence_sweep(*args))
+                # the sweep the dispatch picks (bf16 at H <= 64: the tensor-core
+                # kernel), and there also the cluster kernel by name
+                sweep = L.recurrence_sweep_kernel(H, dtype)
                 res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
+                if sweep == "lstm_recurrence_bwd_mma":
+                    res["cluster_dxg"] = rel_err(
+                        L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, tol)
                 dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
                 res["dw"] = rel_err(L.lstm_recurrence_wgrad(hs, dxg, G, dtype), dw, tol)
                 torch.cuda.synchronize()
                 shape = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
-                         "dtype": str(dtype).replace("torch.", ""), "mask": mask}
+                         "dtype": str(dtype).replace("torch.", ""), "mask": mask,
+                         "sweep": sweep}
                 check = {**shape, "valid_share": float(valid.float().mean()),
                          "max_abs_err": {n: e for n, (e, _) in res.items()},
                          "tol": f"{tol} x max(1, max|ref|)"}
@@ -1163,6 +1344,12 @@ def phase_recurrence_kernel(dev) -> dict:
                          lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
+                if sweep == "lstm_recurrence_bwd_mma":
+                    # new, old, old, new: both sweeps in one run, on one card
+                    old = [time_ms(lambda: L.lstm_recurrence_bwd(
+                        *args, kernel="lstm_recurrence_bwd"), 3) for _ in range(2)]
+                    t["bwd_cluster_ms"] = 0.5 * (old[0] + old[1])
+                    t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype)
                 if dtype == torch.float32 and mask == "lengths":
                     # yardsticks the port never calls: cuDNN for the recurrence
@@ -1178,13 +1365,17 @@ def phase_recurrence_kernel(dev) -> dict:
                 del xg, valid, w, dhs, ref, hs, cs, dxg, dw, args
                 if "wgrad_library_ms" in t:
                     t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev)
+                elif sweep == "lstm_recurrence_bwd_mma" and mask == "lengths" and T == T_TRAIN:
+                    t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(
+                        T, H, dev, dtype=dtype)
                 timings.append(t)
     cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
                       for k, v in L._cluster_counts.items() if k[0].startswith("lstm_rec")}
-    out = {"phase": "recurrence_kernel", "checks": checks, "timings": timings,
-           "max_active_clusters": cluster_counts,
-           "library": "one bidirectional nn.LSTM layer (cuDNN, f32, full lengths), which also "
-                      "does the input projection; cuBLAS for wgrad"}
+    ragged = ragged_recurrence_check(dev)
+    out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
+           "timings": timings, "max_active_clusters": cluster_counts,
+           "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
+                      "H = 64), which also does the input projection; cuBLAS for wgrad"}
     emit(out)
     return out
 
@@ -1194,7 +1385,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     from intrepppid_tpu_torch.ops import lstm
     from intrepppid_tpu_torch.train import Trainer
 
-    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_wgrad")
+    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad")
     lstm.DEFAULT_BACKEND = "recurrence"
     try:
         rng = np.random.default_rng(SEED)
@@ -1221,7 +1412,9 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         breakdown = profile_device(
             lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
-            groups={"fwd": "lstm_recurrence_fwd_kernel", "sweep": "lstm_recurrence_bwd_kernel",
+            groups={"fwd": "lstm_recurrence_fwd_kernel",
+                    "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
+                    "sweep_cluster": "lstm_recurrence_bwd_kernel",
                     "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
         if not all(np.isfinite(losses + [eval_loss])):
             raise AssertionError(
@@ -1230,10 +1423,15 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         layer = [n for n, c in launches.items() if n not in new and c != 0]
         if missing or layer:
             raise AssertionError(
-                f"the recurrence-backend steps missed {missing} or ran the layer kernels {layer}")
+                f"the recurrence-backend steps missed {missing} or ran the cluster sweep "
+                f"or a layer kernel: {layer}")
         del trainer, net
+        f32 = f32_steps(dev, batches,
+                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_wgrad"),
+                        ("lstm_recurrence_bwd_mma", "bilstm_bwd", "bilstm_bwd_mma"))
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
+        grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     finally:
         lstm.DEFAULT_BACKEND = "auto"
     median = float(np.median(step_ms))
@@ -1242,7 +1440,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "step_ms": step_ms, "median_step_ms": median,
            "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
-           "peak_memory_gib": peak_gib, "step_profile": breakdown, "grad_check": grad_check}
+           "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
+           "grad_check": grad_check, "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
@@ -1365,14 +1564,18 @@ def main() -> int:
         "library_ms": f32["library_ms"],
         "work": "eval variant, both layers of one bulk serve dispatch, f32, B=800, T=1500, H=64",
     }]
-    t32 = tk["timings"]["float32"]
+    t32, t16 = tk["timings"]["float32"], tk["timings"]["bfloat16"]
+    sweep_errs = ("dxf0", "dxf1", "dxb0", "dxb1", "dgc", "dbias")
     train_errs = {
         "fwd": ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b"),
-        "bwd": ("dxf0", "dxf1", "dxb0", "dxb1", "dbias"),
+        "bwd": sweep_errs,
         "wgrad": ("dW_ih", "dW_hh"),
     }
     library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
                "wgrad": t32["wgrad_library_ms"]}
+    # the CUDA-core sweep's main path is the f32 step, the others' the bf16 step
+    path_launches = {**train["launches"],
+                     "bilstm_bwd": train["float32_steps"]["launches"]["bilstm_bwd"]}
     for key, name, source, replaces in (
         ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "lstm_pallas_packed.py:256"),
         ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "lstm_pallas_packed.py:494"),
@@ -1383,7 +1586,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": train["launches"][name],
+            "launches": path_launches[name],
             "max_abs_err": max(v for c in tk["checks"] if c["dtype"] == "float32"
                                for n, v in c["max_abs_err"].items() if n in train_errs[key]),
             "ms": t32[f"{key}_ms"],
@@ -1393,6 +1596,25 @@ def main() -> int:
             "library_ms": library[key],
             "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64",
         })
+    kernels.append({
+        "name": "bilstm_bwd_mma",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd_mma.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:494",
+        "launches": train["launches"]["bilstm_bwd_mma"],
+        "max_abs_err": max(v for c in tk["checks"] + tk["ragged_checks"]
+                           if c["dtype"] == "bfloat16"
+                           for n, v in c["max_abs_err"].items() if n in sweep_errs),
+        "ms": t16["bwd_ms"],
+        "plain_ms": t16["bwd_plain_ms"],
+        "bound_ms": t16["bwd_bound_ms"],
+        "bound_by": t16["bwd_bound_by"],
+        "library_ms": t16["cudnn_bwd_data_ms"],
+        "cuda_core_ms": t16["bwd_cuda_core_ms"],
+        "work": "both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
+                "cuda_core_ms: bilstm_bwd.cu on the same operands in the same run; library: "
+                "cuDNN nn.LSTM backward (input) in bf16",
+    })
     w32 = wk["timings"]["float32"]
     wide_errs = {
         "gates": ("xg",),
@@ -1428,6 +1650,9 @@ def main() -> int:
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
+    # the cluster sweep's main path is the f32 step, the others' the bf16 step
+    rec_launches = {**rpath["launches"], "lstm_recurrence_bwd":
+                    rpath["float32_steps"]["launches"]["lstm_recurrence_bwd"]}
     for key, replaces in (("fwd", "lstm_pallas.py:116"), ("bwd", "lstm_pallas.py:185"),
                           ("wgrad", "lstm_pallas.py:185")):
         ops_ms = sum(t[f"{key}_flops"] for t in step) / PEAK_F32_FLOPS * 1e3
@@ -1437,7 +1662,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/lstm_recurrence_{key}.cu",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": rpath["launches"][f"lstm_recurrence_{key}"],
+            "launches": rec_launches[f"lstm_recurrence_{key}"],
             "max_abs_err": max(v for c in rk["checks"] if c["dtype"] == "float32"
                                for n, v in c["max_abs_err"].items() if n in rec_errs[key]),
             "ms": sum(t[f"{key}_ms"] for t in step),
@@ -1449,6 +1674,32 @@ def main() -> int:
                     "D=2, 400 rows, T=1500, H=64; library: cuDNN nn.LSTM layers, which also "
                     "do the input projection (cuBLAS for wgrad)",
         })
+    step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
+              and t["H"] == H_SERVE and t["T"] == T_TRAIN]
+    ops_ms = sum(t["bwd_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = sum(t["bwd_bytes"] for t in step16) / PEAK_BYTES * 1e3
+    kernels.append({
+        "name": "lstm_recurrence_bwd_mma",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_bwd_mma.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
+        "launches": rpath["launches"]["lstm_recurrence_bwd_mma"],
+        "max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["checks"] + rk["ragged_checks"]
+                           if c.get("sweep", c.get("kernel")) == "lstm_recurrence_bwd_mma"),
+        "ms": sum(t["bwd_ms"] for t in step16),
+        "plain_ms": sum(t["bwd_plain_ms"] for t in step16),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": sum(t["bwd_library_ms"] for t in step16),
+        "cluster_ms": sum(t["bwd_cluster_ms"] for t in step16),
+        "work": "both layers of one recurrence-backend step (5 weight groups + 1), bf16 "
+                "compute dtype, D=2, 400 rows, T=1500, H=64; cluster_ms: "
+                "lstm_recurrence_bwd.cu on the same operands in the same run; library: cuDNN "
+                "nn.LSTM backward (input) in bf16, with the projection's dx",
+    })
+    if len(kernels) != 13 or any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError(f"a kernel of a main path was never launched: "
+                             f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

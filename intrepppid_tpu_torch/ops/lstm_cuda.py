@@ -13,10 +13,13 @@ packed, fused or lite kernels:
     (``with_states`` False / True; 2H == 128) and of
     ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` at the
     other widths that fit. Plain twin: ``ops/lstm.py:bidir_layer``.
-  * ``bilstm_bwd`` launches ``csrc/bilstm_bwd.cu``, the reverse-time sweep
-    of ``lstm_pallas_packed.py:750 _bwd_pallas_packed`` and of
-    ``lstm_pallas_layer.py:603 _bwd_pallas``. Plain twin:
-    ``ops/lstm.py:bidir_layer_sweep``.
+  * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
+    _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
+    Two kernels do it, picked by shape and dtype (``sweep_kernel``):
+    ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64:
+    the products on the tensor cores), and ``bilstm_bwd`` itself launches
+    ``csrc/bilstm_bwd.cu`` for the rest (f32, CUDA cores). Plain twin of
+    both: ``ops/lstm.py:bidir_layer_sweep``.
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
 
@@ -43,9 +46,13 @@ wide route's cluster design at every width they take:
 
 * ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
   (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
-* ``lstm_recurrence_bwd`` launches ``csrc/lstm_recurrence_bwd.cu``, the
-  reverse-time sweep of ``lstm_pallas.py:274 _bwd_pallas`` (``dxg``).
-  Plain twin: ``recurrence_sweep``.
+* ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
+  _bwd_pallas`` (``dxg``), by one of two kernels
+  (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
+  ``csrc/lstm_recurrence_bwd_mma.cu`` (bf16, H = 32 or 64: one block per
+  row tile, tensor cores), ``lstm_recurrence_bwd`` itself launches the
+  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest. Plain twin
+  of both: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` launches ``csrc/lstm_recurrence_wgrad.cu``, that
   kernel's ``dW`` sums. Plain twin: ``recurrence_wgrad``.
 
@@ -60,7 +67,9 @@ layout the kernel does not take; it never falls back. Where a weight
 group's rows are not a whole number of row tiles, the resident wrappers pad
 each group with length-0 rows and slice them off (the JAX package does the
 same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
-own tiles. Each wrapper's ``.launches`` counts its kernel launches.
+own tiles, as do the two tensor-core sweeps. Each wrapper's ``.launches``
+counts the launches of its own kernel: a sweep that ``bilstm_bwd``
+hands to ``bilstm_bwd_mma`` counts there.
 """
 from __future__ import annotations
 
@@ -96,12 +105,20 @@ SMEM_LIMIT = 232448
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
 # bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
 # (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu and
-# lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile)
+# lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
+# bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
+# kMaxThreads, kMaxH, kPad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
+# kMaxH, kWPad, kFPad)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
 GATES_TILE_N, GATES_TILE_K = 128, 16
 WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD = 8, 256, 4
+# the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
+# stages, 16-byte chunks a thread copies per step, widest H, row padding
+MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
+BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS = 3, 384
+REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
 # rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
 WIDE_ROWS = (2, 4, 7, 10)
 _WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
@@ -113,6 +130,8 @@ _SIGNATURES = {
     "bilstm_fwd": ("bilstm_layer_fwd", [_I, _P, _P, _I, _I] + [_P] * 10 + [_I] * 7 + [_P]),
     "bilstm_bwd": ("bilstm_bwd", [_I, _P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                    + [_I] * 6 + [_P]),
+    "bilstm_bwd_mma": ("bilstm_bwd_mma", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
+                       + [_I] * 7 + [_P]),
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_gates": ("bilstm_gates", [_I] + [_P] * 2 + [_I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
@@ -120,6 +139,7 @@ _SIGNATURES = {
                         + [_I] * 6 + [_P, _P]),
     "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
 }
 _CONSTANTS = {
@@ -128,6 +148,11 @@ _CONSTANTS = {
     "bilstm_bwd": (("bilstm_bwd_rows_per_thread", "bilstm_bwd_max_chunks",
                     "bilstm_bwd_max_threads", "bilstm_bwd_max_dx_rows", "bilstm_bwd_pad"),
                    (BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, MAX_THREADS, BWD_MAX_DX_ROWS, BWD_PAD)),
+    "bilstm_bwd_mma": (("bilstm_bwd_mma_tile", "bilstm_bwd_mma_stages",
+                        "bilstm_bwd_mma_max_chunks", "bilstm_bwd_mma_max_threads",
+                        "bilstm_bwd_mma_max_h", "bilstm_bwd_mma_pad"),
+                       (MMA_TILE, MMA_STAGES, BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS,
+                        MMA_MAX_H, MMA_PAD)),
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
     "bilstm_gates": (("bilstm_gates_tile_n", "bilstm_gates_tile_k"),
                      (GATES_TILE_N, GATES_TILE_K)),
@@ -143,6 +168,14 @@ _CONSTANTS = {
     "lstm_recurrence_bwd": (("lstm_recurrence_bwd_cluster", "lstm_recurrence_bwd_max_threads",
                              "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad"),
                             (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+    "lstm_recurrence_bwd_mma": (("lstm_recurrence_bwd_mma_tile",
+                                 "lstm_recurrence_bwd_mma_stages",
+                                 "lstm_recurrence_bwd_mma_max_chunks",
+                                 "lstm_recurrence_bwd_mma_max_h",
+                                 "lstm_recurrence_bwd_mma_w_pad",
+                                 "lstm_recurrence_bwd_mma_f_pad"),
+                                (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
+                                 REC_MMA_F32_PAD)),
     "lstm_recurrence_wgrad": (("lstm_recurrence_wgrad_tile",), (WGRAD_TILE,)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
@@ -259,6 +292,59 @@ def bwd_launch_plan(E_parts: Sequence[int], H: int,
     return threads, rows, smem
 
 
+def bwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
+                 ny: int = 2) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the tensor-core sweep
+    (``csrc/bilstm_bwd_mma.cu``) for a layer with ``ny`` dy streams per
+    direction, or ValueError for a dtype or shape it does not take. It takes
+    bfloat16 with H in {16, 32, 48, 64}, input parts that are multiples of 8
+    wide, and ``(E + H) % 32 == 0`` (its products step K by 32)."""
+    E = sum(E_parts)
+    if (dtype != torch.bfloat16 or H % 16 or not 16 <= H <= MMA_MAX_H
+            or any(e <= 0 or e % 8 for e in E_parts) or (E + H) % 32):
+        raise ValueError(
+            f"bilstm_bwd_mma kernel takes bfloat16 with H in {{16, 32, 48, {MMA_MAX_H}}}, input "
+            f"parts that are positive multiples of 8 and (E + H) % 32 == 0, got {dtype}, "
+            f"H={H}, E_parts={list(E_parts)}")
+    # one warp per 8 hidden units; the dx columns past the first H go to
+    # extra warps, 16 columns each
+    threads = 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2))
+    chunks = MMA_TILE * (E + (2 + ny) * H) // 8
+    ks, hs, gs = E + H + MMA_PAD, H + MMA_PAD, 4 * H + MMA_PAD
+    smem = (_a16(4 * H * ks * 2) + _a16(2 * MMA_TILE * gs * 2)
+            + MMA_STAGES * MMA_TILE * 2 * (ks + (1 + ny) * hs))
+    if threads > BWD_MMA_MAX_THREADS or chunks > BWD_MMA_MAX_CHUNKS * threads \
+            or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"bilstm_bwd_mma kernel: E={E}, H={H} needs {threads} threads (at most "
+            f"{BWD_MMA_MAX_THREADS}), {chunks} tile chunks (at most {BWD_MMA_MAX_CHUNKS} a "
+            f"thread) and {smem} bytes of shared memory (at most {SMEM_LIMIT})")
+    return threads, smem
+
+
+def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The kernel the resident route's sweep takes for a layer, by shape and
+    dtype alone: ``"bilstm_bwd_mma"`` where ``bwd_mma_plan`` fits (bf16,
+    H <= 64), else ``"bilstm_bwd"`` where ``bwd_launch_plan`` fits (f32, and
+    the bf16 shapes the tensor-core sweep does not take); ValueError naming
+    both refusals otherwise."""
+    try:
+        bwd_mma_plan(E_parts, H, dtype)
+        return "bilstm_bwd_mma"
+    except ValueError as mma:
+        try:
+            bwd_launch_plan(E_parts, H, dtype)
+        except ValueError as cores:
+            raise ValueError(f"{cores}; {mma}") from None
+    return "bilstm_bwd"
+
+
+def mma_tiles(B: int, G: int) -> int:
+    """Row tiles of a tensor-core sweep: each weight group is cut into its
+    own tiles of ``MMA_TILE`` rows (the last one short)."""
+    return G * -(-(B // G) // MMA_TILE)
+
+
 def wgrad_check(E_parts: Sequence[int], H: int) -> None:
     """ValueError for a shape the weight-gradient kernel does not take."""
     if (4 * H) % WGRAD_TILE or any(w <= 0 or w % 8 for w in (*E_parts, H)):
@@ -289,7 +375,7 @@ def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     and CUDA tensors alike, before any launch."""
     try:
         launch_plan(E_parts, H, dtype)
-        bwd_launch_plan(E_parts, H, dtype)
+        sweep_kernel(E_parts, H, dtype)
         return "resident"
     except ValueError as resident:
         try:
@@ -516,6 +602,44 @@ def bilstm_layer_fwd_train(
 bilstm_layer_fwd_train.launches = 0
 
 
+def _sweep_operands(what, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                    dyf, dyb, dhn, dcn, cd):
+    """Checked operands of a resident sweep kernel: ``(dev, T, B, H, G,
+    E_parts, w_hh)`` with ``w_hh`` grouped."""
+    if cd not in _DTYPE_CODES:
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, got {cd}")
+    if len(x_parts) not in (1, 2) or len(dyf) != len(dyb) or len(dyf) > 2:
+        raise ValueError(
+            f"{what} kernel takes 1 or 2 input parts and 0-2 dy streams "
+            f"per direction, got {len(x_parts)} parts and {len(dyf)}/{len(dyb)} streams"
+        )
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+    E_parts = [p.shape[-1] for p in x_parts]
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
+    _check("w_hh", w_hh, (2, G, 4 * H, H), cd, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
+                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
+        _check(name, t, (T, B, H), cd, dev)
+    for name, t in (("dhn", dhn), ("dcn", dcn)):
+        if t is not None:
+            _check(name, t, (2, B, H), torch.float32, dev)
+    if B % G:
+        raise ValueError(f"{what} kernel: batch {B} is not a multiple of {G} weight groups")
+    return dev, T, B, H, G, E_parts, w_hh
+
+
+def _ptr(seq, k):
+    return seq[k].data_ptr() if k < len(seq) else None
+
+
 def bilstm_bwd(
     x_parts: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -531,41 +655,29 @@ def bilstm_bwd(
     dhn: Optional[torch.Tensor],
     dcn: Optional[torch.Tensor],
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ):
     """One layer's backward sweep; the contract of
-    ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``."""
+    ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
+
+    On the card the sweep runs the kernel ``sweep_kernel`` names for its
+    shapes and dtype: the tensor-core one through :func:`bilstm_bwd_mma`
+    (whose ``.launches`` then counts it), or ``csrc/bilstm_bwd.cu`` here.
+    ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
+    the other); a shape it does not take raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
                                  dyf, dyb, dhn, dcn, compute_dtype)
-    if compute_dtype not in _DTYPE_CODES:
-        raise ValueError(f"bilstm_bwd kernel takes float32 or bfloat16, got {compute_dtype}")
-    if len(x_parts) not in (1, 2) or len(dyf) != len(dyb) or len(dyf) > 2:
-        raise ValueError(
-            f"bilstm_bwd kernel takes 1 or 2 input parts and 0-2 dy streams "
-            f"per direction, got {len(x_parts)} parts and {len(dyf)}/{len(dyb)} streams"
-        )
-    dev = x_parts[0].device
-    T, B = x_parts[0].shape[:2]
-    H = hs_f.shape[-1]
-    w_hh = grouped_w_hh(w_hh)
-    G = w_hh.shape[1]
     cd = compute_dtype
-    E_parts = [p.shape[-1] for p in x_parts]
-    for k, p in enumerate(x_parts):
-        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
-    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
-    _check("w_hh", w_hh, (2, G, 4 * H, H), cd, dev)
-    _check("bias", bias, (2, 4 * H), torch.float32, dev)
-    _check("lengths", lengths, (B,), torch.int32, dev)
-    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
-                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
-        _check(name, t, (T, B, H), cd, dev)
-    for name, t in (("dhn", dhn), ("dcn", dcn)):
-        if t is not None:
-            _check(name, t, (2, B, H), torch.float32, dev)
-    if B % G:
-        raise ValueError(f"bilstm_bwd kernel: batch {B} is not a multiple of {G} weight groups")
+    dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
+        "bilstm_bwd", x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+        dyf, dyb, dhn, dcn, cd)
+    if kernel not in (None, "bilstm_bwd", "bilstm_bwd_mma"):
+        raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
+    if (kernel or sweep_kernel(E_parts, H, cd)) == "bilstm_bwd_mma":
+        return bilstm_bwd_mma(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                              dyf, dyb, dhn, dcn, cd)
 
     threads, rows, smem = bwd_launch_plan(E_parts, H, cd)
     pad = _tile_pad(B, G, rows)
@@ -585,19 +697,16 @@ def bilstm_bwd(
     nblk = -(-Bp // rows)
     dbias_part = torch.zeros((nblk, 2, 4 * H), dtype=torch.float32, device=dev)
     if B > 0:
-        def ptr(seq, k):
-            return seq[k].data_ptr() if k < len(seq) else None
-
         with torch.cuda.device(dev):
             err = lib.bilstm_bwd(
-                _DTYPE_CODES[cd], ptr(x_parts, 0), ptr(x_parts, 1),
+                _DTYPE_CODES[cd], _ptr(x_parts, 0), _ptr(x_parts, 1),
                 E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
                 lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
                 hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
-                ptr(dyf, 0), ptr(dyf, 1), ptr(dyb, 0), ptr(dyb, 1), len(dyf),
+                _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
                 None if dhn is None else dhn.data_ptr(),
                 None if dcn is None else dcn.data_ptr(),
-                ptr(dxf, 0), ptr(dxf, 1), ptr(dxb, 0), ptr(dxb, 1),
+                _ptr(dxf, 0), _ptr(dxf, 1), _ptr(dxb, 0), _ptr(dxb, 1),
                 dgc.data_ptr(), dbias_part.data_ptr(),
                 T, Bp, H, G, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
             )
@@ -613,6 +722,67 @@ def bilstm_bwd(
 
 
 bilstm_bwd.launches = 0
+
+
+def bilstm_bwd_mma(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+):
+    """One layer's backward sweep on the tensor cores
+    (``csrc/bilstm_bwd_mma.cu``); the contract of
+    ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
+    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64) and raises
+    for the rest. Row tiles are cut inside each weight group, so nothing is
+    padded. Its outputs carry no graph, so under grad mode it refuses an
+    operand that requires grad, on the CPU too: ``BiLSTMStack`` is the way
+    in."""
+    x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                 dyf, dyb, dhn, dcn, compute_dtype)
+    cd = compute_dtype
+    dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
+        "bilstm_bwd_mma", x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+        dyf, dyb, dhn, dcn, cd)
+    threads, smem = bwd_mma_plan(E_parts, H, cd, len(dyf))
+    dxf = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
+    dxb = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
+    dgc = torch.empty((2, T, B, 4 * H), dtype=cd, device=dev)
+    tiles = mma_tiles(B, G)
+    dbias_part = torch.zeros((tiles, 2, 4 * H), dtype=torch.float32, device=dev)
+    if B * T > 0:
+        with torch.cuda.device(dev):
+            err = _kernels("bilstm_bwd_mma").bilstm_bwd_mma(
+                _ptr(x_parts, 0), _ptr(x_parts, 1),
+                E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+                lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+                hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+                _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
+                None if dhn is None else dhn.data_ptr(),
+                None if dcn is None else dcn.data_ptr(),
+                _ptr(dxf, 0), _ptr(dxf, 1), _ptr(dxb, 0), _ptr(dxb, 1),
+                dgc.data_ptr(), dbias_part.data_ptr(),
+                T, B, H, G, tiles, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on_error("bilstm_bwd_mma", err)
+        bilstm_bwd_mma.launches += 1
+    return dxf, dxb, dgc, dbias_part.sum(dim=0)
+
+
+bilstm_bwd_mma.launches = 0
 
 
 def bilstm_wgrad(
@@ -841,14 +1011,11 @@ def bilstm_bwd_lite(
         return dgates
     R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters("bilstm_bwd_lite", cd, H, dev))
 
-    def ptr(seq, k):
-        return seq[k].data_ptr() if k < len(seq) else None
-
     with torch.cuda.device(dev):
         err = _kernels("bilstm_bwd_lite").bilstm_bwd_lite(
             _DTYPE_CODES[cd], R, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
             hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
-            ptr(dyf, 0), ptr(dyf, 1), ptr(dyb, 0), ptr(dyb, 1), len(dyf),
+            _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
             None if dhn is None else dhn.data_ptr(), None if dcn is None else dcn.data_ptr(),
             dgates.data_ptr(), T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
@@ -893,13 +1060,40 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
 
 
 # ------------------------------------------- the time-major recurrence op
+REC_MMA_WIDTHS = (32, 64)
+
+
 def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
     """ValueError for a width or compute dtype the recurrence kernels do
     not take."""
     if compute_dtype not in _DTYPE_CODES or H % 32 or not 32 <= H <= WIDE_MAX_THREADS:
         raise ValueError(
             f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {WIDE_MAX_THREADS}}} "
-            f"(H % 32 == 0) with compute dtype float32 or bfloat16, got H={H}, {compute_dtype}")
+            f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the weight "
+            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweep "
+            f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}), "
+            f"got H={H}, {compute_dtype}")
+
+
+def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
+    """The kernel the recurrence op's sweep takes, by width and compute
+    dtype alone: ``"lstm_recurrence_bwd_mma"`` for bfloat16 at H = 32 or 64,
+    else the cluster kernel ``"lstm_recurrence_bwd"`` (float32, and H = 96 to
+    256 in either dtype); ValueError for what neither takes."""
+    recurrence_check(H, compute_dtype)
+    if compute_dtype == torch.bfloat16 and H in REC_MMA_WIDTHS:
+        return "lstm_recurrence_bwd_mma"
+    return "lstm_recurrence_bwd"
+
+
+def recurrence_mma_smem(H: int) -> int:
+    """Dynamic shared memory of the tensor-core recurrence sweep's block:
+    the bf16 ``w`` (4H x H, rows padded), two bf16 dgates tiles, and three
+    stages of the f32 xg, h_prev, c_prev and dhs tiles."""
+    ws, gs = H + MMA_PAD, 4 * H + MMA_PAD
+    xs, cs = 4 * H + REC_MMA_F32_PAD, H + REC_MMA_F32_PAD
+    return (_a16(4 * H * ws * 2) + _a16(2 * MMA_TILE * gs * 2)
+            + MMA_STAGES * MMA_TILE * 4 * (xs + ws + 2 * cs))
 
 
 def _recurrence_operands(xg, valid, w, G, cd, what):
@@ -959,39 +1153,58 @@ def lstm_recurrence_fwd(
 lstm_recurrence_fwd.launches = 0
 
 
-def lstm_recurrence_bwd(
-    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
-    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
-    G: int, compute_dtype: torch.dtype,
-) -> torch.Tensor:
-    """The recurrence's backward sweep; the contract of
-    ``ops/lstm_recurrence.py:recurrence_sweep``: the masked f32 gate
-    cotangents ``dxg (T, D, B, 4H)``. ``dhs (T, D, B, H)`` and ``dhn``,
-    ``dcn (D, B, H)`` are f32, or None for zero."""
-    _no_graph(xg, w, hs, cs)
-    if not xg.is_cuda:
-        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
-    cd = compute_dtype
-    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, "lstm_recurrence_bwd")
+def _recurrence_sweep_operands(what, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd):
+    """Checked operands of a recurrence sweep kernel, as
+    ``_recurrence_operands``."""
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, what)
     for name, t, shape in (("hs", hs, (T, D, B, H)), ("cs", cs, (T, D, B, H)),
                            ("dhs", dhs, (T, D, B, H)), ("dhn", dhn, (D, B, H)),
                            ("dcn", dcn, (D, B, H))):
         if t is not None:
             _check(name, t, shape, torch.float32, dev)
+    return dev, T, D, B, H, valid8
+
+
+def _opt_ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def lstm_recurrence_bwd(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype, kernel: Optional[str] = None,
+) -> torch.Tensor:
+    """The recurrence's backward sweep; the contract of
+    ``ops/lstm_recurrence.py:recurrence_sweep``: the masked f32 gate
+    cotangents ``dxg (T, D, B, 4H)``. ``dhs (T, D, B, H)`` and ``dhn``,
+    ``dcn (D, B, H)`` are f32, or None for zero.
+
+    On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
+    for its width and dtype: the tensor-core one through
+    :func:`lstm_recurrence_bwd_mma` (whose ``.launches`` then counts it), or
+    the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks for the
+    latter by name (to time it beside the other)."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd = compute_dtype
+    name = "lstm_recurrence_bwd"
+    if kernel not in (None, name, "lstm_recurrence_bwd_mma"):
+        raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
+    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
+        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if (kernel or recurrence_sweep_kernel(H, cd)) == "lstm_recurrence_bwd_mma":
+        return lstm_recurrence_bwd_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
-    name = "lstm_recurrence_bwd"
     R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         err = _kernels(name).lstm_recurrence_bwd(
             _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), ptr(dhs), ptr(dhn), ptr(dcn), dxg.data_ptr(),
-            D, T, B, H, G, tiles, smem, torch.cuda.current_stream(dev).cuda_stream, None,
+            hs.data_ptr(), cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn),
+            dxg.data_ptr(), D, T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
         )
     _raise_on_error(name, err)
     lstm_recurrence_bwd.launches += 1
@@ -999,6 +1212,45 @@ def lstm_recurrence_bwd(
 
 
 lstm_recurrence_bwd.launches = 0
+
+
+def lstm_recurrence_bwd_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The recurrence's backward sweep on the tensor cores
+    (``csrc/lstm_recurrence_bwd_mma.cu``: one block per 8-row tile and
+    direction, no cluster); the contract of
+    ``ops/lstm_recurrence.py:recurrence_sweep``. Takes bfloat16 at H = 32 or
+    64 and raises for the rest."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd = compute_dtype
+    name = "lstm_recurrence_bwd_mma"
+    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
+        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if recurrence_sweep_kernel(H, cd) != name:
+        raise ValueError(
+            f"{name} kernel takes compute dtype bfloat16 with H in {set(REC_MMA_WIDTHS)}, "
+            f"got H={H}, {cd}")
+    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * D * T == 0:
+        return dxg
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_bwd_mma(
+            xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(),
+            D, T, B, H, G, mma_tiles(B, G), recurrence_mma_smem(H),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_bwd_mma.launches += 1
+    return dxg
+
+
+lstm_recurrence_bwd_mma.launches = 0
 
 
 def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,

@@ -44,13 +44,24 @@ def test_every_kernel_source_is_built_and_bound():
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
                        "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
-                       "lstm_recurrence_bwd", "lstm_recurrence_wgrad"}
+                       "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
+                       "lstm_recurrence_bwd_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
-    assert any(_build.CSRC.glob("*.cuh"))
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh"}
+    # every constant the wrappers check is exported by its source, and the
+    # two tensor-core sweeps share the fragment header
+    for name, (getters, want) in lstm_cuda._CONSTANTS.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert len(getters) == len(want)
+        assert all(f"int {g}()" in text for g in getters), name
+    for name in ("bilstm_bwd_mma", "lstm_recurrence_bwd_mma"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "bilstm_mma.cuh"' in text and "mma_bf16(" in text
+        assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -1,7 +1,8 @@
 """The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
 the eval and train forward, the backward sweep, the weight gradients, the
-wide route's input gates, cluster forward and lite sweep, and the
-time-major recurrence op's forward, sweep and weight gradient), their plain
+wide route's input gates, cluster forward and lite sweep, the time-major
+recurrence op's forward, sweep and weight gradient, and the two bf16
+tensor-core sweeps with the dispatch that picks them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
 autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
 
@@ -387,6 +388,147 @@ def test_recurrence_check(H, dtype, ok):
             lstm_cuda.recurrence_check(H, dtype)
 
 
+# ------------------------------------------------- the tensor-core sweeps
+@pytest.mark.parametrize(
+    "E_parts,H,dtype,kernel",
+    [
+        ([64], 64, torch.bfloat16, "bilstm_bwd_mma"),
+        ([64, 64], 64, torch.bfloat16, "bilstm_bwd_mma"),
+        ([32, 32], 32, torch.bfloat16, "bilstm_bwd_mma"),
+        ([32], 32, torch.bfloat16, "bilstm_bwd_mma"),
+        ([64], 64, torch.float32, "bilstm_bwd"),       # f32 keeps the CUDA-core sweep
+        ([64, 64], 64, torch.float32, "bilstm_bwd"),
+        ([32], 64, torch.bfloat16, "bilstm_bwd_mma"),  # (E + H) % 32 == 0
+        ([128], 64, torch.bfloat16, "bilstm_bwd_mma"),
+        ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
+        ([64], 60, torch.bfloat16, None),
+    ],
+)
+def test_sweep_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+            lstm_cuda.sweep_kernel(E_parts, H, dtype)
+        return
+    assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == kernel
+    assert lstm_cuda.layer_route(E_parts, H, dtype) == "resident"
+
+
+def test_sweep_kernel_leaves_the_wide_route_alone():
+    """H = 256 (and H = 128) fit no resident sweep in either dtype: the
+    layer stays on the wide route, whose lite sweep is unchanged."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert lstm_cuda.layer_route([256], 256, dtype) == "wide"
+        assert lstm_cuda.layer_route([128, 128], 128, dtype) == "wide"
+        with pytest.raises(ValueError, match="bilstm_bwd_mma kernel"):
+            lstm_cuda.sweep_kernel([256], 256, dtype)
+
+
+@pytest.mark.parametrize("E_parts,H,ny,threads", [([64], 64, 2, 256), ([64, 64], 64, 1, 384),
+                                                  ([32], 32, 2, 128), ([32, 32], 32, 0, 192),
+                                                  ([16, 16], 32, 1, 128)])
+def test_bwd_mma_plan(E_parts, H, ny, threads):
+    """One warp per 8 hidden units, one more per 16 dx columns past the
+    first H; the block's tile chunks and shared memory within the kernel's
+    constants."""
+    got, smem = lstm_cuda.bwd_mma_plan(E_parts, H, torch.bfloat16, ny)
+    assert got == threads <= lstm_cuda.BWD_MMA_MAX_THREADS
+    assert smem <= lstm_cuda.SMEM_LIMIT
+    assert smem <= lstm_cuda.bwd_mma_plan(E_parts, H, torch.bfloat16)[1]  # ny = 2 is the most
+    assert threads >= 4 * H  # one 16-byte chunk of the dgc tile per thread
+    E = sum(E_parts)
+    assert 8 * (E + (2 + ny) * H) // 8 <= lstm_cuda.BWD_MMA_MAX_CHUNKS * threads
+    # bf16 weights: the manuscript layer 1 holds 4H x (E + H + 8) x 2 bytes resident
+    if E_parts == [64, 64]:
+        assert 256 * 200 * 2 < smem < 140_000
+    with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+        lstm_cuda.bwd_mma_plan(E_parts, H, torch.float32, ny)
+
+
+def test_mma_tiles_are_cut_inside_each_weight_group():
+    assert lstm_cuda.mma_tiles(400, 5) == 50 and lstm_cuda.mma_tiles(400, 1) == 50
+    assert lstm_cuda.mma_tiles(30, 5) == 5 and lstm_cuda.mma_tiles(50, 1) == 7
+    assert lstm_cuda.mma_tiles(27, 3) == 6
+
+
+def _permuted(j, H):
+    """ops-side mirror of ``csrc/bilstm_mma.cuh:permuted_of_gate_row``."""
+    q, u = divmod(j, H)
+    return 32 * (u // 8) + 8 * q + u % 8
+
+
+@pytest.mark.parametrize("H", [16, 32, 48, 64])
+def test_gate_row_permutation_puts_a_units_gates_in_one_lane(H):
+    """The permutation the kernels stage the weights with is a bijection of
+    the 4H gate rows; warp w's two m16 tiles (32 permuted rows) hold units
+    8w .. 8w+7, and lane group g of the m16n8 accumulator (tile rows g and
+    g + 8) finds gates i, f in the first tile and g, o in the second, all of
+    unit 8w + g. The header's two functions are read from the source."""
+    src = (lstm_cuda._build.CSRC / "bilstm_mma.cuh").read_text()
+    assert "return ((u >> 3) << 5) + (q << 3) + (u & 7);" in src
+    assert "return ((p & 31) >> 3) * H + ((p >> 5) << 3) + (p & 7);" in src
+    perm = [_permuted(j, H) for j in range(4 * H)]
+    assert sorted(perm) == list(range(4 * H))
+    inverse = {p: j for j, p in enumerate(perm)}
+    for p, j in inverse.items():
+        assert ((p & 31) >> 3) * H + ((p >> 5) << 3) + (p & 7) == j
+    for w in range(H // 8):
+        for g in range(8):
+            rows = [32 * w + 16 * mt + g + 8 * half for mt in range(2) for half in range(2)]
+            assert [inverse[p] for p in rows] == [q * H + 8 * w + g for q in range(4)]
+    # 8 consecutive permuted rows are 8 consecutive gate rows: the dgc tile
+    # leaves as 16-byte chunks
+    for c in range(4 * H // 8):
+        assert [inverse[8 * c + r] for r in range(8)] == list(
+            range(inverse[8 * c], inverse[8 * c] + 8))
+
+
+def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 6, [16, 16], 16, 2, torch.bfloat16, torch.device("cpu"))
+    cd = torch.bfloat16
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.lstm_recurrence_bwd,
+                lstm_cuda.lstm_recurrence_bwd_mma)
+    before = [f.launches for f in wrappers]
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:1], dy[2:3], dhn, None,
+            cd)
+    ref = bidir_layer_sweep(*args)
+    for got in (lstm_cuda.bilstm_bwd_mma(*args), lstm_cuda.bilstm_bwd(*args),
+                lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got[0] + got[1] + got[2:], ref[0] + ref[1] + ref[2:]))
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_mma(parts, lengths, w_ih.clone().requires_grad_(), *args[3:])
+
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(5, 3, 6, 32, 2, cd, torch.device("cpu"), "holes")
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, 2, cd)
+    rargs = (xg, valid, w, hs, cs, dhs, None, dcn, 2, cd)
+    dxg = recurrence_sweep(*rargs)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd_mma(*rargs), dxg)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs, kernel="lstm_recurrence_bwd"), dxg)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_mma(xg, valid, w.clone().requires_grad_(), *rargs[3:])
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.parametrize("H,dtype,kernel", [
+    (64, torch.bfloat16, "lstm_recurrence_bwd_mma"), (32, torch.bfloat16, "lstm_recurrence_bwd_mma"),
+    (64, torch.float32, "lstm_recurrence_bwd"), (32, torch.float32, "lstm_recurrence_bwd"),
+    (128, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.bfloat16, "lstm_recurrence_bwd"),
+    (96, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.float32, "lstm_recurrence_bwd"),
+    (48, torch.bfloat16, None), (64, torch.float16, None)])
+def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
+            lstm_cuda.recurrence_sweep_kernel(H, dtype)
+        return
+    assert lstm_cuda.recurrence_sweep_kernel(H, dtype) == kernel
+    if kernel.endswith("mma"):
+        assert lstm_cuda.recurrence_mma_smem(H) <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
+
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -568,8 +710,9 @@ def test_recurrence_kernels_match_plain_on_card(cuda_device, dtype, H, G, B, D, 
             assert float((a.float() - b.float()).abs().max()) <= tol * max(
                 1.0, float(b.float().abs().max()))
 
-    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
-                lstm_cuda.lstm_recurrence_wgrad)
+    # the sweep's launches count on the wrapper of the kernel the dispatch names
+    sweep = getattr(lstm_cuda, lstm_cuda.recurrence_sweep_kernel(H, dtype))
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, sweep, lstm_cuda.lstm_recurrence_wgrad)
     before = [f.launches for f in wrappers]
     ref = recurrence_fwd(xg, valid, w, G, dtype)
     close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, dtype), ref)
@@ -624,3 +767,110 @@ def test_recurrence_kernel_rejects_bad_operands_on_card(cuda_device):
                                       torch.float32)
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.lstm_recurrence_fwd(xg.requires_grad_(), valid, w, G, torch.float32)
+
+
+def _close(got, want, tol):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(
+            1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,ny,final", [
+    ([64], 64, 5, 30, 2, True), ([64, 64], 64, 1, 50, 1, True), ([64], 64, 1, 13, 0, False),
+    ([64, 64], 64, 2, 18, 2, False), ([32, 32], 32, 3, 24, 1, True), ([32], 32, 1, 9, 2, False)])
+def test_sweep_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny, final):
+    """The tensor-core sweep against its plain twin in bf16: 1 and 2 input
+    parts, 0-2 dy streams, with and without final-state cotangents, weight
+    groups of 6, 8, 9 and 13 rows (short tiles inside each group), and rows
+    8-15 short of T so the second tile skips the positions past its longest
+    row. The dispatch hands ``bilstm_bwd`` to it; the CUDA-core sweep asked
+    for by name agrees too."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches)
+    _close(flat(lstm_cuda.bilstm_bwd_mma(*args)), flat(want), 3e-2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
+        before[0], before[1] + 2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (64, 2, 20, 1),
+                                     (64, 1, 9, 3), (32, 3, 24, 2), (32, 1, 13, 1)])
+def test_recurrence_sweep_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, mask):
+    """The tensor-core recurrence sweep against its plain twin in bf16:
+    masks from lengths and with holes, D = 1, 2, 3, groups of 12, 10, 8, 9
+    and 13 rows, with and without ``dhs`` / ``dcn``; the cluster sweep asked
+    for by name agrees too."""
+    cd = torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, mask,
+                                                  seed=T + B)
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    none = (xg, valid, w, hs, cs, None, dhn, None, G, cd)
+    before = (lstm_cuda.lstm_recurrence_bwd.launches, lstm_cuda.lstm_recurrence_bwd_mma.launches)
+    want = recurrence_sweep(*args)
+    _close([lstm_cuda.lstm_recurrence_bwd_mma(*args)], [want], 3e-2)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args)], [want], 3e-2)
+    _close([lstm_cuda.lstm_recurrence_bwd_mma(*none)], [recurrence_sweep(*none)], 3e-2)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.lstm_recurrence_bwd.launches,
+            lstm_cuda.lstm_recurrence_bwd_mma.launches) == (before[0], before[1] + 3)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_sweep_mma_rejects_what_it_does_not_take_on_card(cuda_device):
+    """f32 operands and H = 128 raise in the tensor-core wrappers; nothing
+    falls back."""
+    T, D, B, G = 4, 2, 8, 1
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, 128, G, torch.bfloat16, cuda_device,
+                                                  "holes")
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, torch.bfloat16)
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma kernel takes"):
+        lstm_cuda.lstm_recurrence_bwd_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, torch.bfloat16)
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [64], 64, 1, torch.float32,
+                                                                 cuda_device)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.float32,
+                                               with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+        lstm_cuda.bilstm_bwd_mma(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                 dy[:1], dy[2:3], dhn, dcn, torch.float32)
+
+
+@pytest.mark.cuda
+def test_bf16_model_gradients_take_the_tensor_core_sweep_on_card(cuda_device):
+    """A bf16 model at embedding 64 runs its sweeps on ``bilstm_bwd_mma``
+    (one launch per layer, none of the CUDA-core sweep); its gradients equal
+    the CPU plain path's within 2^-7 x max(1, max|grad|): bf16 streams, and
+    the kernels' other order of sums."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches)
+    got = model_grads(cuda_device, dtype=torch.bfloat16, embedding_size=64)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
+        before[0], before[1] + 2)
+    want = model_grads(torch.device("cpu"), dtype=torch.bfloat16, embedding_size=64)
+    for name, grad in got.items():
+        ref = want[name]
+        assert float((grad.cpu() - ref).abs().max()) <= 2 ** -7 * max(
+            1.0, float(ref.abs().max())), name
