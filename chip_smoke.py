@@ -22,41 +22,47 @@ exits non-zero with no result):
    ``.ckpt``, answering real HTTP requests on 127.0.0.1; probabilities are
    checked against the port's CPU plain forward, and the kernel's launch
    counter must rise during the requests;
-4. train_kernel — the train step's kernels (the forward's train variant,
+4. train_kernel — the train step's kernels (the forward in both variants,
    the two backward sweeps and the weight-gradient kernel) against their
    plain versions at the train shapes (400 rows in 5 weight groups of 80,
    T = 1500, H = 64, layer 0 at E = 64 with grouped W_hh and layer 1 at
    E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
-   per-group maxima: in bf16 the sweep is the tensor-core kernel
-   (``bilstm_bwd_mma``), and the CUDA-core one (``bilstm_bwd``), asked for
-   by name, is held too; a ragged case (27 rows in 3 groups, T = 1); then
-   each kernel (in bf16 both sweeps, in the same run) and a PyTorch
-   yardstick (cuDNN forward and backward-data in f32 and in bf16, cuBLAS
-   products) timed with CUDA events at full lengths, TF32 off; the plain
-   versions are timed once, in the check;
+   per-group maxima: in bf16 the forward, the sweep and wgrad are the
+   tensor-core kernels (``bilstm_layer_fwd(_train)_mma``,
+   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), and the CUDA-core ones, asked
+   for by name, are held too; ragged cases (27 rows in 3 groups, T = 1,
+   rows of length 0); then each kernel (in bf16 the new and the old in
+   turns, new, old, old, new, in the same run) and a PyTorch yardstick
+   (cuDNN training and inference forward and backward-data in f32 and in
+   bf16, cuBLAS products in the same dtype) timed with CUDA events at full
+   lengths, TF32 off; the plain versions are timed once, in the check;
 5. train — ``intrepppid_network(compute_dtype=bfloat16,
    optimizer_type="ranger21_xx")`` on the card and the port's ``Trainer``
    on synthetic quintuplet batches (80 pairs, T = 1500, dropout on): 2
-   warm-up steps, 12 timed steps, a profiled step, and each train kernel's
-   launch count: the forward, ``bilstm_bwd_mma`` and wgrad must be > 0 and
-   the CUDA-core sweep 0; then 2 steps of the same model in f32, whose
-   sweep must be ``bilstm_bwd`` alone; then one step's gradients on the
-   card held against the port's CPU plain path at a small size, in f32
-   and in bf16;
+   warm-up steps, 12 timed steps and an eval step, a profiled step, and
+   each kernel's launch count: the tensor-core forward (both variants),
+   ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma`` must be > 0 and the
+   CUDA-core forward, sweep and wgrad 0; then 2 steps of the same model in
+   f32, which must run the CUDA-core kernels alone; then one step's
+   gradients on the card held against the port's CPU plain path at a small
+   size, in f32 and in bf16;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
    shapes (400 rows in 5 groups of 80, T = 1500, H = 256, layer 0 at
    E = 256 with grouped W_hh and a stacked layer at E = 2 x 256) in f32 and
-   bf16, at H = 128 (T = 300), and the resident sweep and wgrad at H = 32
-   (T = 300); then each timed with CUDA events at full lengths beside its
-   plain version and a PyTorch yardstick (cuBLAS, cuDNN);
+   bf16, at H = 128 (T = 300), and the resident forward, sweep and wgrad at
+   H = 32 (T = 300); in bf16 wgrad is ``bilstm_wgrad_mma`` and the
+   CUDA-core kernel, asked for by name, is held too; then each timed with
+   CUDA events at full lengths beside its plain version and a PyTorch
+   yardstick (cuBLAS, cuDNN), wgrad in bf16 new, old, old, new;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
-   the wide kernels and never through the resident train kernels, a
-   profiled step and peak memory; then one step's gradients at embedding
-   256 and 3 layers held against the CPU plain path;
+   the wide kernels and ``bilstm_wgrad_mma`` and never through the resident
+   kernels or the CUDA-core wgrad, a profiled step and peak memory; then
+   one step's gradients at embedding 256 and 3 layers held against the CPU
+   plain path;
 8. recurrence_kernel — the time-major recurrence op's kernels (forward,
    sweep, weight gradient) against their plain versions at T = 1500,
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
@@ -68,8 +74,8 @@ exits non-zero with no result):
    is held and timed beside it; a ragged case (27 rows in 3 groups,
    T = 1). Each is timed with CUDA events beside its plain version and a
    PyTorch yardstick (one bidirectional ``nn.LSTM`` layer at full lengths,
-   in f32 and at H = 64 in bf16, which also does the input projection;
-   cuBLAS for the weight gradient);
+   in f32 and at H = 64 and 32 in bf16, which also does the input
+   projection; cuBLAS for the weight gradient in the compute dtype);
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -135,8 +141,10 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
+        WGRAD_MMA_SMEM,
         bwd_launch_plan,
         bwd_mma_plan,
+        fwd_mma_plan,
         launch_plan,
         recurrence_mma_smem,
     )
@@ -161,7 +169,10 @@ def phase_build() -> dict:
     for E_parts in ([E_SERVE], [H_SERVE, H_SERVE]):
         smem[f"bwd_mma bfloat16 E={sum(E_parts)}"] = bwd_mma_plan(
             E_parts, H_SERVE, torch.bfloat16)[1]
+        smem[f"fwd_mma (static) bfloat16 E={sum(E_parts)}"] = fwd_mma_plan(
+            E_parts, H_SERVE, torch.bfloat16)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
+    smem["wgrad_mma"] = WGRAD_MMA_SMEM
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -275,23 +286,30 @@ def phase_kernel(dev) -> dict:
                          "flops": flops, "bytes": nbytes}
 
     # the kernel at the H = 32 width it also serves (the shapes of TPU
-    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128)
-    k_ms = p_ms = flops = nbytes = 0.0
-    for E_parts in ([32], [32, 32]):
-        args = layer_inputs(96, 300, E_parts, 32, torch.float32, dev, SEED, full_lengths=True)
-        k_ms += time_ms(lambda: bilstm_layer_fwd(*args, torch.float32), 5)
-        p_ms += time_ms(lambda: bilstm_layer_fwd_plain(*args, torch.float32), 2)
-        f, b = layer_work(96, 300, sum(E_parts), 32, 4)
-        flops, nbytes = flops + f, nbytes + b
-    lstm = torch.nn.LSTM(32, 32, num_layers=2, bidirectional=True).to(dev)
-    x = torch.rand(300, 96, 32, device=dev) * 2 - 1
-    with torch.inference_mode():
-        h32_lib_ms = time_ms(lambda: lstm(x), 5)
-    del lstm, x
-    timings["h32_float32"] = {"kernel_ms": k_ms, "plain_ms": p_ms, "flops": flops,
-                              "bytes": nbytes, "B": 96, "T": 300,
-                              "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-                              "library_ms": h32_lib_ms}
+    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128); in
+    # bf16 the tensor-core forward, beside the CUDA-core one by name
+    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+        size = torch.empty((), dtype=dtype).element_size()
+        t = {"kernel_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "B": 96, "T": 300}
+        for E_parts in ([32], [32, 32]):
+            args = layer_inputs(96, 300, E_parts, 32, dtype, dev, SEED, full_lengths=True)
+            if dtype == torch.bfloat16:
+                a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
+                                   lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
+                t["kernel_ms"] += a
+                t["cuda_core_ms"] = t.get("cuda_core_ms", 0.0) + c
+            else:
+                t["kernel_ms"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
+            t["plain_ms"] += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
+            f, b = layer_work(96, 300, sum(E_parts), 32, size)
+            t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + b
+        t["bound_ms"] = max(t["flops"] / peak, t["bytes"] / PEAK_BYTES) * 1e3
+        lstm = torch.nn.LSTM(32, 32, num_layers=2, bidirectional=True).to(dev).to(dtype)
+        x = (torch.rand(300, 96, 32, device=dev) * 2 - 1).to(dtype)
+        with torch.inference_mode():
+            t["library_ms"] = time_ms(lambda: lstm(x), 5)
+        del lstm, x
+        timings[f"h32_{str(dtype).replace('torch.', '')}"] = t
 
     # cuDNN yardstick: the same two-layer bidirectional stack, full lengths
     lstm = torch.nn.LSTM(E_SERVE, H_SERVE, num_layers=2, bidirectional=True).to(dev)
@@ -531,6 +549,8 @@ def train_layer_work(E, H, size, ny, T=T_TRAIN, G=G_TRAIN):
     weights = 2 * 4 * H * (E + G * H) * size + 2 * 4 * H * 4
     fwd = (2 * rows * 4 * H * (E + H),
            stream * E + weights + B_TRAIN * 4 + 4 * stream * H + 2 * 2 * B_TRAIN * H * 4)
+    # the eval variant writes no cell streams
+    fwd_eval = (fwd[0], fwd[1] - 2 * stream * H)
     # sweep: gate recompute 4H(E+H), dx 4H E, dh 4H H per (direction, row, step)
     bwd = (2 * rows * 4 * H * (2 * E + 2 * H),
            stream * E + 4 * stream * H + 2 * ny * stream * H + weights + B_TRAIN * 4
@@ -538,7 +558,7 @@ def train_layer_work(E, H, size, ny, T=T_TRAIN, G=G_TRAIN):
     wgrad = (2 * rows * 4 * H * (E + H),
              2 * stream * 4 * H + stream * E + 2 * stream * H
              + 2 * 4 * H * (E + G * H) * 4)
-    return {"fwd": fwd, "bwd": bwd, "wgrad": wgrad}
+    return {"fwd": fwd, "fwd_eval": fwd_eval, "bwd": bwd, "wgrad": wgrad}
 
 
 def wgrad_library(dgc, parts, hs_f, hs_b, G):
@@ -572,7 +592,8 @@ def cudnn_stack_times(dev, dtype) -> dict:
     """cuDNN yardstick: the manuscript two-layer bidirectional ``nn.LSTM`` at
     the train shape in ``dtype``, TF32 off: the training-mode forward, then
     the backward for the input alone and for input and weights (each the
-    forward and backward together, less the forward)."""
+    forward and backward together, less the forward), and the inference
+    forward."""
     H = H_SERVE
     lstm = torch.nn.LSTM(E_SERVE, H, num_layers=2, bidirectional=True).to(dev).to(dtype)
     lstm.flatten_parameters()
@@ -583,8 +604,11 @@ def cudnn_stack_times(dev, dtype) -> dict:
     for p in lstm.parameters():
         p.requires_grad_(False)
     data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 5)
+    with torch.inference_mode():
+        inference_ms = time_ms(lambda: lstm(x), 5)
     return {"cudnn_fwd_ms": fwd_ms, "cudnn_fwd_bwd_ms": full_ms,
-            "cudnn_bwd_data_ms": data_ms - fwd_ms, "cudnn_bwd_ms": full_ms - fwd_ms}
+            "cudnn_bwd_data_ms": data_ms - fwd_ms, "cudnn_bwd_ms": full_ms - fwd_ms,
+            "cudnn_inference_ms": inference_ms}
 
 
 def sweep_names(dxf, dxb):
@@ -636,6 +660,59 @@ def ragged_sweep_check(dev) -> list:
     return out
 
 
+def ragged_fwd_wgrad_check(dev) -> list:
+    """The tensor-core forward (both variants) and wgrad against their twins
+    where no size is round: 27 rows in 3 weight groups of 9 (a short tile
+    in each group), T = 1, rows of length 0, both layer shapes, bf16."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_wgrad
+
+    cd, H, B, G, T = torch.bfloat16, H_SERVE, 27, 3, 1
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    out = []
+    for i, E_parts in enumerate(([E_SERVE], [H, H])):
+        g = torch.Generator(device=dev).manual_seed(SEED + 75 + i)
+
+        def u(*shape, scale=1.0):
+            return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
+
+        parts = tuple(u(T, B, e).to(cd) for e in E_parts)
+        w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(cd)
+        w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
+        bias = u(2, 4 * H)
+        lengths = torch.ones(B, dtype=torch.int32, device=dev)
+        lengths[::4] = 0
+        args = (parts, lengths, w_ih, w_hh, bias, cd)
+        want = bidir_layer(*args, with_states=True)
+        res = {n: rel_err(a, b, TOL[cd])
+               for n, a, b in zip(names, L.bilstm_layer_fwd_train_mma(*args), want)}
+        res.update({f"eval_{n}": rel_err(a, b, TOL[cd])
+                    for n, a, b in zip(names, L.bilstm_layer_fwd_mma(*args), want[:4])})
+        hs_f, hs_b = want[:2]
+        dgc = u(2, T, B, 4 * H).to(cd)
+        ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+        got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
+        res["dW_ih"], res["dW_hh"] = (rel_err(got[0], ref[0], TOL[cd]),
+                                      rel_err(got[1], ref[1], TOL[cd]))
+        torch.cuda.synchronize()
+        check = {"kernel": "bilstm_fwd_mma, bilstm_wgrad_mma", "B": B, "G": G, "T": T, "H": H,
+                 "E_parts": E_parts, "dtype": "bfloat16",
+                 "max_abs_err": {n: e for n, (e, _) in res.items()},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "train_kernel", "failed": check})
+            raise AssertionError(f"a ragged forward or wgrad disagrees with its twin: {check}")
+    return out
+
+
+def in_turns(new, old, reps: int) -> tuple:
+    """Two kernels on the same operands timed new, old, old, new in one run
+    on one card: (first new ms, second new ms, mean old ms)."""
+    a, b, c, d = time_ms(new, reps), time_ms(old, reps), time_ms(old, reps), time_ms(new, reps)
+    return a, d, 0.5 * (b + c)
+
+
 def phase_train_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
@@ -644,24 +721,40 @@ def phase_train_kernel(dev) -> dict:
     H = H_SERVE
     err = rel_err
     checks = []
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    # the kernels the dispatch names: bf16 the tensor-core ones, f32 the others
+    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"),
+              torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the plain versions (Python loops over T) are timed here, once each
-    plain_ms = {torch.float32: {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0},
-                torch.bfloat16: {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0}}
+    plain_ms = {dtype: {"fwd": 0.0, "fwd_eval": 0.0, "bwd": 0.0, "wgrad": 0.0}
+                for dtype in (torch.float32, torch.bfloat16)}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for i, (E_parts, G) in enumerate(layers):
-            if L.sweep_kernel(E_parts, H, dtype) != (
-                    "bilstm_bwd_mma" if dtype == torch.bfloat16 else "bilstm_bwd"):
-                raise AssertionError(f"unexpected sweep kernel for {E_parts}, {dtype}")
+            if (L.fwd_kernel(E_parts, H, dtype), L.sweep_kernel(E_parts, H, dtype),
+                    L.wgrad_kernel(E_parts, H, dtype)) != picked[dtype]:
+                raise AssertionError(f"unexpected kernels for {E_parts}, {dtype}")
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
                 E_parts, H, G, dtype, dev, SEED + 10 + i)
-            got = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
-            want, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(
-                parts, lengths, w_ih, w_hh, bias, dtype, with_states=True))
+            fwd_args = (parts, lengths, w_ih, w_hh, bias, dtype)
+            got = L.bilstm_layer_fwd_train(*fwd_args)
+            want, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
             plain_ms[dtype]["fwd"] += ms
-            hs_f, hs_b, _, _, cs_f, cs_b = want
-            names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
             res = {n: err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)}
+            got = L.bilstm_layer_fwd(*fwd_args)
+            res.update({f"eval_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)})
+            if bf16:
+                # the CUDA-core forward by name, both variants
+                old = L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")
+                res.update({f"cuda_core_{n}": err(a, b, TOL[dtype])
+                            for n, a, b in zip(names, old, want)})
+                old = L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")
+                res.update({f"cuda_core_eval_{n}": err(a, b, TOL[dtype])
+                            for n, a, b in zip(names, old, want)})
+                _, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(*fwd_args))
+                plain_ms[dtype]["fwd_eval"] += ms
             del got
+            hs_f, hs_b, _, _, cs_f, cs_b = want
             bwd_args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                         dhn, dcn, dtype)
             ref, ms = timed_once(lambda: bidir_layer_sweep(*bwd_args))
@@ -675,7 +768,7 @@ def phase_train_kernel(dev) -> dict:
             dxf, dxb, dgc, dbias = L.bilstm_bwd(*bwd_args)
             res.update({n: err(a, b, TOL[dtype])
                         for n, a, b in zip(gnames, list(dxf) + list(dxb) + [dgc, dbias], refs)})
-            if dtype == torch.bfloat16:
+            if bf16:
                 old = L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")
                 res.update({f"cuda_core_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(
                     gnames, list(old[0]) + list(old[1]) + list(old[2:]), refs)})
@@ -683,10 +776,14 @@ def phase_train_kernel(dev) -> dict:
             dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             res["dW_ih"], res["dW_hh"] = (err(dw_ih, ref_w[0], TOL[dtype]),
                                           err(dw_hh, ref_w[1], TOL[dtype]))
+            if bf16:
+                dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+                res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (
+                    err(dw_ih, ref_w[0], TOL[dtype]), err(dw_hh, ref_w[1], TOL[dtype]))
             torch.cuda.synchronize()
             check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
                      "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
-                     "sweep": L.sweep_kernel(E_parts, H, dtype),
+                     "kernels": picked[dtype],
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
             checks.append(check)
@@ -694,17 +791,20 @@ def phase_train_kernel(dev) -> dict:
             if not all(ok for _, ok in res.values()):
                 emit({"phase": "train_kernel", "failed": check})
                 raise AssertionError(f"a train kernel disagrees with its plain version: {check}")
-    ragged = ragged_sweep_check(dev)
+    ragged = ragged_sweep_check(dev) + ragged_fwd_wgrad_check(dev)
 
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         name = str(dtype).replace("torch.", "")
         size = torch.empty((), dtype=dtype).element_size()
-        t = {k: 0.0 for k in ("fwd_ms", "bwd_ms", "wgrad_ms", "wgrad_library_ms")}
-        t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items()})
-        if dtype == torch.bfloat16:
-            t["bwd_cuda_core_ms"] = 0.0
-        work = {k: [0.0, 0.0] for k in ("fwd", "bwd", "wgrad")}
+        keys = ["fwd", "fwd_eval", "bwd", "wgrad"]
+        t = {f"{k}_ms": 0.0 for k in keys}
+        t["wgrad_library_ms"] = 0.0
+        t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items() if v})
+        if bf16:
+            t.update({f"{k}_{what}": 0.0 for k in keys for what in ("ms_again", "cuda_core_ms")})
+        work = {k: [0.0, 0.0] for k in keys}
         for i, (E_parts, G) in enumerate(layers):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
                 E_parts, H, G, dtype, dev, SEED + 20 + i, full_lengths=True)
@@ -713,23 +813,33 @@ def phase_train_kernel(dev) -> dict:
             bwd_args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                         dhn, dcn, dtype)
             dgc = L.bilstm_bwd(*bwd_args)[2]
-            t["fwd_ms"] += time_ms(lambda: L.bilstm_layer_fwd_train(*fwd_args), 5)
-            t["bwd_ms"] += time_ms(lambda: L.bilstm_bwd(*bwd_args), 5)
-            if dtype == torch.bfloat16:
-                # new, old, old, new: both sweeps in one run, on one card
-                old_a = time_ms(lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd"), 3)
-                old_b = time_ms(lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd"), 3)
-                t["bwd_cuda_core_ms"] += 0.5 * (old_a + old_b)
-                t["bwd_ms_again"] = t.get("bwd_ms_again", 0.0) + time_ms(
-                    lambda: L.bilstm_bwd(*bwd_args), 5)
-            t["wgrad_ms"] += time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 5)
+            calls = {
+                "fwd": (lambda: L.bilstm_layer_fwd_train(*fwd_args),
+                        lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")),
+                "fwd_eval": (lambda: L.bilstm_layer_fwd(*fwd_args),
+                             lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")),
+                "bwd": (lambda: L.bilstm_bwd(*bwd_args),
+                        lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")),
+                "wgrad": (lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+                          lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
+                                                 kernel="bilstm_wgrad")),
+            }
+            for k, (new, old) in calls.items():
+                if bf16:
+                    # new, old, old, new: both kernels in one run, on one card
+                    a, b, c = in_turns(new, old, 5 if k != "bwd" else 3)
+                    t[f"{k}_ms"] += a
+                    t[f"{k}_ms_again"] += b
+                    t[f"{k}_cuda_core_ms"] += c
+                else:
+                    t[f"{k}_ms"] += time_ms(new, 5)
             t["wgrad_library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 5)
             for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
-            del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args
+            del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args, calls
         add_bounds(t, work, dtype)
-        t["sweep"] = "bilstm_bwd_mma" if dtype == torch.bfloat16 else "bilstm_bwd"
+        t["kernels"] = picked[dtype]
         # the yardstick the port never calls: cuDNN in the same dtype
         t.update(cudnn_stack_times(dev, dtype))
         timings[name] = t
@@ -764,9 +874,11 @@ def train_counters():
     from intrepppid_tpu_torch.ops import lstm_cuda as L
 
     return {"bilstm_layer_fwd_train": L.bilstm_layer_fwd_train,
+            "bilstm_layer_fwd_train_mma": L.bilstm_layer_fwd_train_mma,
             "bilstm_bwd": L.bilstm_bwd, "bilstm_bwd_mma": L.bilstm_bwd_mma,
-            "bilstm_wgrad": L.bilstm_wgrad,
-            "bilstm_layer_fwd": L.bilstm_layer_fwd, "bilstm_gates": L.bilstm_gates,
+            "bilstm_wgrad": L.bilstm_wgrad, "bilstm_wgrad_mma": L.bilstm_wgrad_mma,
+            "bilstm_layer_fwd": L.bilstm_layer_fwd,
+            "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma, "bilstm_gates": L.bilstm_gates,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
@@ -785,7 +897,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     trainer = Trainer(net, seed=SEED)
     batches = [quintuplet_batch(rng, PAIRS_TRAIN, T_TRAIN) for _ in range(4)]
     counters = train_counters()
-    # the main path: every train step below goes through the kernels
+    # the main path: every train step and the eval step below go through the kernels
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -796,30 +908,38 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
         losses.append(aux["loss"].item())
         if i >= warmup:
             step_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    eval_loss = trainer.eval_step(batches[0])["loss"].item()
+    eval_ms = (time.perf_counter() - t) * 1e3
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
-        groups={"fwd": "bilstm_layer_fwd_kernel", "sweep_mma": "bilstm_bwd_mma_kernel",
-                "sweep_cuda_core": "bilstm_bwd_kernel", "wgrad": "bilstm_wgrad_kernel"})
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite train loss: {losses}")
-    missing = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd_mma", "bilstm_wgrad")
-               if launches[n] <= 0]
-    if missing or launches["bilstm_bwd"] != 0:
+        groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_cuda_core": "bilstm_layer_fwd_kernel",
+                "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_cuda_core": "bilstm_bwd_kernel",
+                "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_cuda_core": "bilstm_wgrad_kernel"})
+    if not all(np.isfinite(losses + [eval_loss])):
+        raise AssertionError(f"non-finite train loss: {losses}, eval {eval_loss}")
+    new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
+           "bilstm_wgrad_mma")
+    old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_wgrad")
+    missing = [n for n in new if launches[n] <= 0]
+    ran_old = [n for n in old if launches[n] != 0]
+    if missing or ran_old:
         raise AssertionError(
-            f"the bf16 train steps never launched {missing}, or ran the CUDA-core sweep "
-            f"{launches['bilstm_bwd']} times")
+            f"the bf16 train and eval steps never launched {missing}, or ran the CUDA-core "
+            f"{ran_old}")
     del trainer, net
     f32 = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_wgrad"),
-                    ("bilstm_bwd_mma",))
+                    ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma"))
     grad_check = train_grad_check(dev)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
            "optimizer": "ranger21_xx", "dropout": 0.3, "step_ms": step_ms,
            "median_step_ms": median, "pairs_per_s": PAIRS_TRAIN / median * 1e3,
-           "losses": losses, "launches": launches, "peak_memory_gib": peak_gib,
+           "losses": losses, "eval_loss": eval_loss, "eval_step_ms": eval_ms,
+           "launches": launches, "peak_memory_gib": peak_gib,
            "step_profile": breakdown, "float32_steps": f32, "grad_check": grad_check,
            "grad_check_bf16": grad_check_bf16}
     emit(out)
@@ -951,23 +1071,32 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
     ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
     res["dW_ih"], res["dW_hh"] = rel_err(got[0], ref[0], tol), rel_err(got[1], ref[1], tol)
+    if dtype == torch.bfloat16:
+        # the dispatch took the tensor-core wgrad; the CUDA-core one by name
+        got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+        res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(got[0], ref[0], tol),
+                                                          rel_err(got[1], ref[1], tol))
     torch.cuda.synchronize()
     return res
 
 
 def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
-    """Row 4's shape on the resident route: the train forward, the sweep
-    and wgrad against the plain layer backward."""
+    """Row 4's shape on the resident route: the forward (both variants, the
+    train variant against the plain forward), the sweep and wgrad against
+    the plain layer backward."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_bwd
 
     parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
         E_parts, H, G, dtype, dev, seed, T=T)
     tol = TOL[dtype]
-    want = L.bilstm_layer_fwd_plain(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
-    got = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, dtype)
-    res = {n: rel_err(a, b, tol)
-           for n, a, b in zip(("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b"), got, want)}
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    fwd_args = (parts, lengths, w_ih, w_hh, bias, dtype)
+    want = L.bilstm_layer_fwd_plain(*fwd_args, with_states=True)
+    got = L.bilstm_layer_fwd_train(*fwd_args)
+    res = {n: rel_err(a, b, tol) for n, a, b in zip(names, got, want)}
+    res.update({f"eval_{n}": rel_err(a, b, tol)
+                for n, a, b in zip(names, L.bilstm_layer_fwd(*fwd_args), want)})
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
     dxf, dxb, dgc, dbias = L.bilstm_bwd(*args)
@@ -978,30 +1107,39 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
     gnames = ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
               + ["dW_ih", "dW_hh", "dbias"])
     res.update({n: rel_err(a, b, tol) for n, a, b in zip(gnames, grads, refs)})
+    if dtype == torch.bfloat16:
+        # the dispatch took the tensor-core forward and wgrad; the CUDA-core ones by name
+        res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
+            names, L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"), want)})
+        old = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+        res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(old[0], ref[2], tol),
+                                                          rel_err(old[1], ref[3], tol))
     torch.cuda.synchronize()
     return res
 
 
 def row4_timings(dev, T=300) -> dict:
     """Kernel row 4's function (a layer's backward with dx, dW_ih, dW_hh
-    and dbias) at its TPU shapes, f32, full lengths, 400 rows: the port's
-    layer backward on its route (``layer_bwd`` then ``bilstm_wgrad``), the
-    plain layer backward, and cuDNN's backward for input and weights
-    (training forward and backward, less the forward)."""
+    and dbias) at its TPU shapes, full lengths, 400 rows, f32 at H = 128 and
+    32 and bf16 at H = 32: the port's layer backward on its route
+    (``layer_bwd`` then ``bilstm_wgrad``), the plain layer backward, and
+    cuDNN's backward for input and weights (training forward and backward,
+    less the forward) in the same dtype."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_bwd
 
     out = {}
-    for H in (128, 32):
+    for H, dtype in ((128, torch.float32), (32, torch.float32), (32, torch.bfloat16)):
         t = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         work = [0.0, 0.0]
+        size = torch.empty((), dtype=dtype).element_size()
         for i, (E_parts, G) in enumerate((([H], G_TRAIN), ([H, H], 1))):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
-                E_parts, H, G, torch.float32, dev, SEED + 50 + i, full_lengths=True, T=T)
+                E_parts, H, G, dtype, dev, SEED + 50 + i, full_lengths=True, T=T)
             hs_f, hs_b, _, _, cs_f, cs_b = L.layer_fwd(parts, lengths, w_ih, w_hh, bias,
-                                                       torch.float32, with_states=True)
+                                                       dtype, with_states=True)
             args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
-                    torch.float32)
+                    dtype)
 
             def kernels():
                 dgc = L.layer_bwd(*args)[2]
@@ -1009,26 +1147,58 @@ def row4_timings(dev, T=300) -> dict:
 
             t["kernel_ms"] += time_ms(kernels, 3)
             t["plain_ms"] += time_ms(lambda: bidir_layer_bwd(*args), 1)
-            lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev)
-            x = (torch.rand(T, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).requires_grad_()
-            dy = torch.rand(T, B_TRAIN, 2 * H, device=dev) * 2 - 1
+            lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev).to(dtype)
+            x = (torch.rand(T, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).to(dtype)
+            x.requires_grad_()
+            dy = (torch.rand(T, B_TRAIN, 2 * H, device=dev) * 2 - 1).to(dtype)
             fwd_ms = time_ms(lambda: lstm(x), 3)
             full_ms = time_ms(
                 lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 3)
             t["library_ms"] += full_ms - fwd_ms
-            route = L.layer_route(E_parts, H, torch.float32)
+            route = L.layer_route(E_parts, H, dtype)
             if route == "wide":
-                w = wide_layer_work(sum(E_parts), H, G, 4, len(dyf), T=T)
+                w = wide_layer_work(sum(E_parts), H, G, size, len(dyf), T=T)
                 keys = ("gates", "lite", "wgrad")
             else:
-                w = train_layer_work(sum(E_parts), H, 4, len(dyf), T=T, G=G)
+                w = train_layer_work(sum(E_parts), H, size, len(dyf), T=T, G=G)
                 keys = ("bwd", "wgrad")
             work[0] += sum(w[k][0] for k in keys)
             work[1] += sum(w[k][1] for k in keys)
             t[f"route_{i}"] = route
             del parts, hs_f, hs_b, cs_f, cs_b, args, lstm, x, dy
-        add_bounds(t, {"bwd": work}, torch.float32)
-        out[f"H{H}"] = {"T": T, "layers": f"E={H} (5 groups) + E=2x{H}", **t}
+        add_bounds(t, {"bwd": work}, dtype)
+        out[f"H{H}_{str(dtype).replace('torch.', '')}"] = {
+            "T": T, "layers": f"E={H} (5 groups) + E=2x{H}", **t}
+    return out
+
+
+def ragged_wide_wgrad_check(dev, H=E_SCALED) -> list:
+    """The tensor-core wgrad against its twin at the scaled width where no
+    size is round: 27 rows in 3 weight groups of 9 with one input part and
+    in 1 group with two, T = 1 (every h_prev past an end), bf16."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_wgrad
+
+    cd, B, T, out = torch.bfloat16, 27, 1, []
+    for i, (E_parts, G) in enumerate((([H], 3), ([H, H], 1))):
+        g = torch.Generator(device=dev).manual_seed(SEED + 85 + i)
+        parts = tuple((torch.rand(T, B, e, generator=g, device=dev) * 2 - 1).to(cd)
+                      for e in E_parts)
+        hs_f, hs_b = ((torch.rand(T, B, H, generator=g, device=dev) * 2 - 1).to(cd)
+                      for _ in range(2))
+        dgc = (torch.rand(2, T, B, 4 * H, generator=g, device=dev) * 2 - 1).to(cd)
+        ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+        got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
+        res = {"dW_ih": rel_err(got[0], ref[0], TOL[cd]), "dW_hh": rel_err(got[1], ref[1], TOL[cd])}
+        torch.cuda.synchronize()
+        check = {"kernel": "bilstm_wgrad_mma", "B": B, "G": G, "T": T, "H": H,
+                 "E_parts": E_parts, "dtype": "bfloat16",
+                 "max_abs_err": {n: e for n, (e, _) in res.items()},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "wide_kernel", "failed": check})
+            raise AssertionError(f"the ragged wide wgrad disagrees with its twin: {check}")
     return out
 
 
@@ -1064,6 +1234,8 @@ def phase_wide_kernel(dev) -> dict:
                 emit({"phase": "wide_kernel", "failed": check})
                 raise AssertionError(f"a {route}-route kernel disagrees with its twin: {check}")
 
+    ragged = ragged_wide_wgrad_check(dev)
+
     # times at full lengths, summed over layer 0 and one stacked layer
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1087,7 +1259,19 @@ def phase_wide_kernel(dev) -> dict:
             add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), 3))
             add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, dtype), 3))
             add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
-            add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+            if plain:
+                add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+            else:
+                # new, old, old, new: the tensor-core wgrad and the CUDA-core one
+                a, b, c = in_turns(
+                    lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+                    lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), 3)
+                add("wgrad_ms", a)
+                add("wgrad_ms_again", b)
+                add("wgrad_cuda_core_ms", c)
+                add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
+                add("wgrad_plain_ms",
+                    time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
             if plain:
                 add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
                 add("fwd_plain_ms", time_ms(
@@ -1124,10 +1308,11 @@ def phase_wide_kernel(dev) -> dict:
             del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args
         add_bounds(t, work, dtype)
         timings[name] = t
-    timings["row4_float32"] = row4_timings(dev)
+    timings["row4"] = row4_timings(dev)
     cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
                       for k, v in L._cluster_counts.items()}
-    out = {"phase": "wide_kernel", "checks": checks, "timings": timings,
+    out = {"phase": "wide_kernel", "checks": checks, "ragged_checks": ragged,
+           "timings": timings,
            "max_active_clusters": cluster_counts,
            "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
                      "layers": "E=256 (grouped W_hh) + E=2x256"}}
@@ -1165,16 +1350,19 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
         groups={"gates": "bilstm_gates_kernel", "fwd_wide": "bilstm_fwd_wide_kernel",
-                "lite": "bilstm_bwd_lite_kernel", "wgrad": "bilstm_wgrad_kernel",
-                "gemm": ("gemm", "nvjet", "xmma")})
+                "lite": "bilstm_bwd_lite_kernel", "wgrad_mma": "bilstm_wgrad_mma_kernel",
+                "wgrad_cuda_core": "bilstm_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
     missing = [n for n in ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                           "bilstm_bwd_lite", "bilstm_wgrad") if launches[n] <= 0]
-    resident = [n for n in ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_layer_fwd")
-                if launches[n] != 0]
+                           "bilstm_bwd_lite", "bilstm_wgrad_mma") if launches[n] <= 0]
+    resident = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
+                            "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
+                            "bilstm_wgrad") if launches[n] != 0]
     if missing or resident:
-        raise AssertionError(f"the scaled steps missed {missing} or ran the resident {resident}")
+        raise AssertionError(
+            f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
+            f"wgrad: {resident}")
     del trainer, net
     grad_check = train_grad_check(dev, embedding_size=E_SCALED, rnn_num_layers=LAYERS_SCALED)
     median = float(np.median(step_ms))
@@ -1351,21 +1539,21 @@ def phase_recurrence_kernel(dev) -> dict:
                     t["bwd_cluster_ms"] = 0.5 * (old[0] + old[1])
                     t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype)
-                if dtype == torch.float32 and mask == "lengths":
+                library = mask == "lengths" and (dtype == torch.float32 or H != E_SCALED)
+                if library:
                     # yardsticks the port never calls: cuDNN for the recurrence
                     # and the sweep (it also does the input projection), one
-                    # batched cuBLAS product for the weight gradient
+                    # batched cuBLAS product for the weight gradient, on the
+                    # operands rounded to the compute dtype as the kernel reads them
                     Bg = B_TRAIN // G
                     hp = hs[:-1].view(T - 1, D_REC, G, Bg, H).permute(1, 2, 4, 0, 3).reshape(
-                        D_REC, G, H, (T - 1) * Bg)
+                        D_REC, G, H, (T - 1) * Bg).to(dtype)
                     dg = dxg[1:].view(T - 1, D_REC, G, Bg, 4 * H).permute(1, 2, 0, 3, 4).reshape(
-                        D_REC, G, (T - 1) * Bg, 4 * H)
+                        D_REC, G, (T - 1) * Bg, 4 * H).to(dtype)
                     t["wgrad_library_ms"] = time_ms(lambda: torch.matmul(hp, dg), 3)
                     del hp, dg
                 del xg, valid, w, dhs, ref, hs, cs, dxg, dw, args
-                if "wgrad_library_ms" in t:
-                    t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev)
-                elif sweep == "lstm_recurrence_bwd_mma" and mask == "lengths" and T == T_TRAIN:
+                if library:
                     t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(
                         T, H, dev, dtype=dtype)
                 timings.append(t)
@@ -1375,7 +1563,8 @@ def phase_recurrence_kernel(dev) -> dict:
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
            "timings": timings, "max_active_clusters": cluster_counts,
            "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
-                      "H = 64), which also does the input projection; cuBLAS for wgrad"}
+                      "H = 64 and 32), which also does the input projection; cuBLAS for wgrad "
+                      "in the compute dtype"}
     emit(out)
     return out
 
@@ -1573,9 +1762,8 @@ def main() -> int:
     }
     library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
                "wgrad": t32["wgrad_library_ms"]}
-    # the CUDA-core sweep's main path is the f32 step, the others' the bf16 step
-    path_launches = {**train["launches"],
-                     "bilstm_bwd": train["float32_steps"]["launches"]["bilstm_bwd"]}
+    # the CUDA-core train kernels' main path is the f32 step
+    path_launches = train["float32_steps"]["launches"]
     for key, name, source, replaces in (
         ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "lstm_pallas_packed.py:256"),
         ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "lstm_pallas_packed.py:494"),
@@ -1615,6 +1803,47 @@ def main() -> int:
                 "cuda_core_ms: bilstm_bwd.cu on the same operands in the same run; library: "
                 "cuDNN nn.LSTM backward (input) in bf16",
     })
+    # the tensor-core forward (both variants) and wgrad: the bf16 step and its eval step
+    w16 = wk["timings"]["bfloat16"]
+    mma_errs = {"fwd": train_errs["fwd"], "wgrad": train_errs["wgrad"],
+                "fwd_eval": tuple(f"eval_{n}" for n in train_errs["fwd"])}
+    for key, name, source, replaces, library16, library32 in (
+        ("fwd", "bilstm_layer_fwd_train_mma", "bilstm_fwd_mma.cu", "lstm_pallas_packed.py:256",
+         "cudnn_fwd_ms", "cudnn_fwd_ms"),
+        ("fwd_eval", "bilstm_layer_fwd_mma", "bilstm_fwd_mma.cu", "lstm_pallas_packed.py:256",
+         "cudnn_inference_ms", "cudnn_inference_ms"),
+        ("wgrad", "bilstm_wgrad_mma", "bilstm_wgrad_mma.cu", "lstm_pallas_packed.py:494",
+         "wgrad_library_ms", None),
+    ):
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{source}",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(v for c in tk["checks"] + tk["ragged_checks"]
+                               + wk["ragged_checks"] if c["dtype"] == "bfloat16"
+                               for n, v in c["max_abs_err"].items() if n in mma_errs[key]),
+            "ms": t16[f"{key}_ms"],
+            "plain_ms": t16[f"{key}_plain_ms"],
+            "bound_ms": t16[f"{key}_bound_ms"],
+            "bound_by": t16[f"{key}_bound_by"],
+            "library_ms": t16[library16],
+            "cuda_core_ms": t16[f"{key}_cuda_core_ms"],
+            "ms_again": t16[f"{key}_ms_again"],
+            "work": f"both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
+                    f"cuda_core_ms: the CUDA-core kernel on the same operands in the same run "
+                    f"(new, old, old, new); library: {library16} in bf16",
+        }
+        if library32:
+            entry["library_f32_ms"] = t32[library32]
+        else:
+            # the scaled step's shapes: layer 0 and one E = 2 x 256 layer at H = 256
+            entry.update({f"h256_{k}": w16[f"wgrad_{k}"]
+                          for k in ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms",
+                                    "bound_by")})
+            entry["h256_launches"] = scaled["launches"][name]
+        kernels.append(entry)
     w32 = wk["timings"]["float32"]
     wide_errs = {
         "gates": ("xg",),
@@ -1697,7 +1926,7 @@ def main() -> int:
                 "lstm_recurrence_bwd.cu on the same operands in the same run; library: cuDNN "
                 "nn.LSTM backward (input) in bf16, with the projection's dx",
     })
-    if len(kernels) != 13 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 16 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

@@ -5,14 +5,19 @@ any launch (``layer_route``), as the JAX package's ``pick_plan`` picks its
 packed, fused or lite kernels:
 
 * **resident** -- where one block's shared memory holds the layer's
-  weights (``launch_plan`` and ``bwd_launch_plan`` fit):
+  weights (a forward kernel and a sweep kernel take the shape):
 
   * ``bilstm_layer_fwd`` (eval) and ``bilstm_layer_fwd_train`` (train: also
-    the cell streams) launch ``csrc/bilstm_fwd.cu``, the counterpart of
+    the cell streams) are the counterpart of
     ``intrepppid_tpu/ops/lstm_pallas_packed.py:392 _fwd_pallas_packed``
     (``with_states`` False / True; 2H == 128) and of
     ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` at the
-    other widths that fit. Plain twin: ``ops/lstm.py:bidir_layer``.
+    other widths that fit. Two kernels do it, picked by shape and dtype
+    (``fwd_kernel``): ``bilstm_layer_fwd_mma`` and
+    ``bilstm_layer_fwd_train_mma`` launch ``csrc/bilstm_fwd_mma.cu`` (bf16,
+    H <= 64: the products on the tensor cores), and the two wrappers
+    themselves launch ``csrc/bilstm_fwd.cu`` for the rest (f32, CUDA
+    cores). Plain twin of both: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Two kernels do it, picked by shape and dtype (``sweep_kernel``):
@@ -36,8 +41,12 @@ packed, fused or lite kernels:
     (f32 gate cotangents out). Plain twin:
     ``ops/lstm.py:bidir_layer_sweep_lite``.
 
-* both routes: ``bilstm_wgrad`` launches ``csrc/bilstm_wgrad.cu``, the
-  weight-gradient products. Plain twin: ``ops/lstm.py:bidir_layer_wgrad``.
+* both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
+  two kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
+  ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 32 == 0: a split-K GEMM on the
+  tensor cores), ``bilstm_wgrad`` itself launches ``csrc/bilstm_wgrad.cu``
+  for the rest (f32, CUDA cores). Plain twin of both:
+  ``ops/lstm.py:bidir_layer_wgrad``.
 
 Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
@@ -67,9 +76,10 @@ layout the kernel does not take; it never falls back. Where a weight
 group's rows are not a whole number of row tiles, the resident wrappers pad
 each group with length-0 rows and slice them off (the JAX package does the
 same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
-own tiles, as do the two tensor-core sweeps. Each wrapper's ``.launches``
+own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
-hands to ``bilstm_bwd_mma`` counts there.
+hands to ``bilstm_bwd_mma`` counts there, and so do the forwards and
+``bilstm_wgrad``.
 """
 from __future__ import annotations
 
@@ -108,7 +118,8 @@ SMEM_LIMIT = 232448
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxThreads, kMaxH, kPad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
-# kMaxH, kWPad, kFPad)
+# kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
+# kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -119,6 +130,15 @@ WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD = 8, 256, 4
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
 BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS = 3, 384
 REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
+# the tensor-core forward: its (H, E) instances (the model's layers at the
+# resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96), x
+# chunks a thread copies per step
+FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128))
+FWD_MMA_MAX_CHUNKS = 2
+# the tensor-core wgrad: block tile (gate rows x source columns), rows per
+# K-tile, cp.async stages, and its dynamic shared memory
+WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K, WGRAD_MMA_STAGES = 128, 128, 32, 4
+WGRAD_MMA_SMEM = 2 * WGRAD_MMA_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + MMA_PAD) * 2
 # rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
 WIDE_ROWS = (2, 4, 7, 10)
 _WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
@@ -133,6 +153,8 @@ _SIGNATURES = {
     "bilstm_bwd_mma": ("bilstm_bwd_mma", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                        + [_I] * 7 + [_P]),
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
+    "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_gates": ("bilstm_gates", [_I] + [_P] * 2 + [_I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
@@ -154,6 +176,15 @@ _CONSTANTS = {
                        (MMA_TILE, MMA_STAGES, BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS,
                         MMA_MAX_H, MMA_PAD)),
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
+    "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
+                        "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
+                        "bilstm_fwd_mma_pad"),
+                       (MMA_TILE, MMA_STAGES, FWD_MMA_MAX_CHUNKS, MAX_THREADS, MMA_PAD)),
+    "bilstm_wgrad_mma": (("bilstm_wgrad_mma_tile_m", "bilstm_wgrad_mma_tile_n",
+                          "bilstm_wgrad_mma_tile_k", "bilstm_wgrad_mma_stages",
+                          "bilstm_wgrad_mma_smem"),
+                         (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
+                          WGRAD_MMA_STAGES, WGRAD_MMA_SMEM)),
     "bilstm_gates": (("bilstm_gates_tile_n", "bilstm_gates_tile_k"),
                      (GATES_TILE_N, GATES_TILE_K)),
     "bilstm_fwd_wide": (("bilstm_fwd_wide_cluster", "bilstm_fwd_wide_max_threads",
@@ -345,6 +376,40 @@ def mma_tiles(B: int, G: int) -> int:
     return G * -(-(B // G) // MMA_TILE)
 
 
+def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the tensor-core forward
+    (``csrc/bilstm_fwd_mma.cu``), or ValueError for a dtype or shape it does
+    not take. It takes bfloat16 at the (H, E) it is instantiated for
+    (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H) in 1 or 2 input
+    parts that are multiples of 8 wide. One warp per 8 hidden units; the
+    shared memory is the three-stage ring of 8-row [x ; h] tiles."""
+    E = sum(E_parts)
+    if (dtype != torch.bfloat16 or (H, E) not in FWD_MMA_SHAPES or len(E_parts) not in (1, 2)
+            or any(e <= 0 or e % 8 for e in E_parts)):
+        raise ValueError(
+            f"bilstm_fwd_mma kernel takes bfloat16 with (H, E) in {list(FWD_MMA_SHAPES)} and "
+            f"1 or 2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
+            f"E_parts={list(E_parts)}")
+    return 4 * H, MMA_STAGES * MMA_TILE * (E + H + MMA_PAD) * 2
+
+
+def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The kernel the resident route's forward (both variants) takes for a
+    layer, by shape and dtype alone: ``"bilstm_fwd_mma"`` where
+    ``fwd_mma_plan`` fits (bf16, H <= 64), else ``"bilstm_fwd"`` where
+    ``launch_plan`` fits (f32, and the bf16 shapes the tensor-core forward
+    does not take); ValueError naming both refusals otherwise."""
+    try:
+        fwd_mma_plan(E_parts, H, dtype)
+        return "bilstm_fwd_mma"
+    except ValueError as mma:
+        try:
+            launch_plan(E_parts, H, dtype)
+        except ValueError as cores:
+            raise ValueError(f"{cores}; {mma}") from None
+    return "bilstm_fwd"
+
+
 def wgrad_check(E_parts: Sequence[int], H: int) -> None:
     """ValueError for a shape the weight-gradient kernel does not take."""
     if (4 * H) % WGRAD_TILE or any(w <= 0 or w % 8 for w in (*E_parts, H)):
@@ -352,6 +417,64 @@ def wgrad_check(E_parts: Sequence[int], H: int) -> None:
             f"bilstm_wgrad kernel needs 4H % {WGRAD_TILE} == 0 and every width "
             f"% 8 == 0, got E_parts={list(E_parts)}, H={H}"
         )
+
+
+def wgrad_mma_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or shape the tensor-core weight-gradient
+    kernel (``csrc/bilstm_wgrad_mma.cu``) does not take: it takes bfloat16
+    with H % 32 == 0 (4H whole 128-row tiles) and 1 or 2 input parts that
+    are multiples of 8 wide."""
+    if (dtype != torch.bfloat16 or H <= 0 or H % 32 or len(E_parts) not in (1, 2)
+            or any(e <= 0 or e % 8 for e in E_parts)):
+        raise ValueError(
+            f"bilstm_wgrad_mma kernel takes bfloat16 with H % 32 == 0 and 1 or 2 input parts "
+            f"that are positive multiples of 8, got {dtype}, H={H}, E_parts={list(E_parts)}")
+
+
+def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The kernel a layer's weight gradients take, by shape and dtype alone:
+    ``"bilstm_wgrad_mma"`` where ``wgrad_mma_check`` passes (bf16,
+    H % 32 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check`` passes (f32,
+    and the bf16 shapes the tensor-core kernel does not take); ValueError
+    naming both refusals otherwise."""
+    try:
+        wgrad_mma_check(E_parts, H, dtype)
+        return "bilstm_wgrad_mma"
+    except ValueError as mma:
+        try:
+            wgrad_check(E_parts, H)
+        except ValueError as cores:
+            raise ValueError(f"{cores}; {mma}") from None
+    return "bilstm_wgrad"
+
+
+def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
+                   H: int) -> Tuple[int, int, int]:
+    """``(m_tiles, n_tiles, splits)`` of the tensor-core wgrad launch: 128-row
+    tiles of the 4H gates, 128-column tiles of the E + H source columns,
+    and the split of each group's T * B / G rows that brings the grid to
+    about ``WGRAD_TARGET_BLOCKS`` blocks, no more splits than K-tiles."""
+    m_tiles = 4 * H // WGRAD_MMA_TILE_M
+    n_tiles = -(-(sum(E_parts) + H) // WGRAD_MMA_TILE_N)
+    rows = T * (B // G)
+    per_split = m_tiles * n_tiles * 2 * G
+    splits = max(1, min(-(-rows // WGRAD_MMA_TILE_K), -(-WGRAD_TARGET_BLOCKS // per_split)))
+    return m_tiles, n_tiles, splits
+
+
+def wgrad_mma_rows(T: int, B: int, G: int, splits: int, split: int, g: int, d: int):
+    """The rows the tensor-core wgrad's blocks of ``split`` read for weight
+    group ``g`` and direction ``d``, as ``(t, b, t_prev)`` with ``t_prev``
+    the position of the h_prev row (None past the ends: zeros); the same
+    integer arithmetic as ``csrc/bilstm_wgrad_mma.cu``."""
+    Bg = B // G
+    rows = T * Bg
+    out = []
+    for n in range(rows * split // splits, rows * (split + 1) // splits):
+        t, b = divmod(n, Bg)
+        tp = t + (1 if d else -1)
+        out.append((t, g * Bg + b, tp if 0 <= tp < T else None))
+    return out
 
 
 def wide_check(H: int, E_parts: Optional[Sequence[int]] = None) -> None:
@@ -374,7 +497,7 @@ def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     a shape neither route takes. Shapes and dtype alone decide it, for CPU
     and CUDA tensors alike, before any launch."""
     try:
-        launch_plan(E_parts, H, dtype)
+        fwd_kernel(E_parts, H, dtype)
         sweep_kernel(E_parts, H, dtype)
         return "resident"
     except ValueError as resident:
@@ -547,6 +670,56 @@ def _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
     return outs
 
 
+def _fwd_mma_launch(wrapper, x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
+    """Launch ``csrc/bilstm_fwd_mma.cu`` for ``wrapper`` (the eval or the
+    train variant), which counts the launch; an empty batch launches
+    nothing."""
+    if len(x_parts) not in (1, 2):
+        raise ValueError(f"bilstm_fwd_mma kernel takes 1 or 2 input parts, got {len(x_parts)}")
+    cd = compute_dtype
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = w_hh.shape[-1]
+    w_hh = grouped_w_hh(w_hh)
+    G = w_hh.shape[1]
+    E_parts = [p.shape[-1] for p in x_parts]
+    threads, _ = fwd_mma_plan(E_parts, H, cd)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
+    _check("w_hh", w_hh, (2, G, 4 * H, H), cd, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    if B % G:
+        raise ValueError(f"bilstm_fwd_mma kernel: batch {B} is not a multiple of {G} weight groups")
+    hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
+    hs_b = torch.empty_like(hs_f)
+    cs_f = torch.empty_like(hs_f) if with_states else None
+    cs_b = torch.empty_like(hs_f) if with_states else None
+    hn = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    cn = torch.empty_like(hn)
+    outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
+    if B == 0:
+        return outs
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_fwd_mma").bilstm_fwd_mma(
+            _ptr(x_parts, 0), _ptr(x_parts, 1), E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+            lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
+            hn.data_ptr(), cn.data_ptr(), T, B, H, G, mma_tiles(B, G), threads,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error("bilstm_fwd_mma", err)
+    wrapper.launches += 1
+    return outs
+
+
+def _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel: Optional[str]) -> str:
+    if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma"):
+        raise ValueError(f"bilstm_layer_fwd: no forward kernel named {kernel!r}")
+    return kernel or fwd_kernel([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+
+
 def bilstm_layer_fwd(
     x_parts: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -554,6 +727,7 @@ def bilstm_layer_fwd(
     w_hh: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One bidirectional LSTM layer, time-major, eval variant.
 
@@ -564,10 +738,18 @@ def bilstm_layer_fwd(
         b_hh``).
     :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype``, ``hn, cn
         (2, B, H)`` f32.
+
+    On the card the layer runs the kernel ``fwd_kernel`` names for its
+    shapes and dtype: the tensor-core one through
+    :func:`bilstm_layer_fwd_mma` (whose ``.launches`` then counts it), or
+    ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks for the latter
+    by name (to time it beside the other); a shape it does not take raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    if _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel) == "bilstm_fwd_mma":
+        return bilstm_layer_fwd_mma(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
     outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, False)
     bilstm_layer_fwd.launches += 1
     return outs
@@ -583,9 +765,11 @@ def bilstm_layer_fwd_train(
     w_hh: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_layer_fwd`: the same operands,
-    and also the cell streams the backward reads.
+    and also the cell streams the backward reads; the same dispatch (the
+    tensor-core kernel through :func:`bilstm_layer_fwd_train_mma`).
 
     :returns: ``hs_f, hs_b, hn, cn`` as the eval variant, then ``cs_f, cs_b
         (T, B, H)`` in ``compute_dtype``.
@@ -594,12 +778,61 @@ def bilstm_layer_fwd_train(
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
                                       with_states=True)
+    if _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel) == "bilstm_fwd_mma":
+        return bilstm_layer_fwd_train_mma(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
     outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, True)
     bilstm_layer_fwd_train.launches += 1
     return outs
 
 
 bilstm_layer_fwd_train.launches = 0
+
+
+def bilstm_layer_fwd_mma(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The eval variant of one layer on the tensor cores
+    (``csrc/bilstm_fwd_mma.cu``); the contract of :func:`bilstm_layer_fwd`.
+    Takes the shapes ``fwd_mma_plan`` takes (bfloat16, H <= 64) and raises
+    for the rest. Row tiles are cut inside each weight group, so nothing is
+    padded. Its outputs carry no graph, so under grad mode it refuses an
+    operand that requires grad, on the CPU too."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    return _fwd_mma_launch(bilstm_layer_fwd_mma, x_parts, lengths, w_ih, w_hh, bias,
+                           compute_dtype, False)
+
+
+bilstm_layer_fwd_mma.launches = 0
+
+
+def bilstm_layer_fwd_train_mma(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_layer_fwd_mma`: also the cell
+    streams ``cs_f, cs_b (T, B, H)``, after ``hn, cn``."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
+                                      with_states=True)
+    return _fwd_mma_launch(bilstm_layer_fwd_train_mma, x_parts, lengths, w_ih, w_hh, bias,
+                           compute_dtype, True)
+
+
+bilstm_layer_fwd_train_mma.launches = 0
 
 
 def _sweep_operands(what, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -791,23 +1024,35 @@ def bilstm_wgrad(
     hs_f: torch.Tensor,
     hs_b: torch.Tensor,
     groups: int,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer's weight gradients; the contract of
     ``ops/lstm.py:bidir_layer_wgrad``: returns ``dW_ih (2, 4H, E)`` and
-    ``dW_hh (2, G, 4H, H)``, f32."""
+    ``dW_hh (2, G, 4H, H)``, f32.
+
+    On the card the products run on the kernel ``wgrad_kernel`` names for
+    the shapes and dtype: the tensor-core one through
+    :func:`bilstm_wgrad_mma` (whose ``.launches`` then counts it), or
+    ``csrc/bilstm_wgrad.cu`` here. ``kernel="bilstm_wgrad"`` asks for the
+    latter by name (to time it beside the other); a shape it does not take
+    raises."""
     x_parts = tuple(x_parts)
     if not dgc.is_cuda:
         return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
+    if kernel not in (None, "bilstm_wgrad", "bilstm_wgrad_mma"):
+        raise ValueError(f"bilstm_wgrad: no weight-gradient kernel named {kernel!r}")
     cd = dgc.dtype
+    E_parts = [p.shape[-1] for p in x_parts]
+    H = hs_f.shape[-1]
+    if (kernel or wgrad_kernel(E_parts, H, cd)) == "bilstm_wgrad_mma":
+        return bilstm_wgrad_mma(dgc, x_parts, hs_f, hs_b, groups)
     if cd not in _DTYPE_CODES:
         raise ValueError(f"bilstm_wgrad kernel takes float32 or bfloat16, got {cd}")
     if len(x_parts) not in (1, 2):
         raise ValueError(f"bilstm_wgrad kernel takes 1 or 2 input parts, got {len(x_parts)}")
     dev = dgc.device
     T, B = x_parts[0].shape[:2]
-    H = hs_f.shape[-1]
     G = groups
-    E_parts = [p.shape[-1] for p in x_parts]
     wgrad_check(E_parts, H)
     if B % G:
         raise ValueError(f"bilstm_wgrad kernel: batch {B} is not a multiple of {G} groups")
@@ -841,6 +1086,60 @@ def bilstm_wgrad(
 
 
 bilstm_wgrad.launches = 0
+
+
+def bilstm_wgrad_mma(
+    dgc: torch.Tensor,
+    x_parts: Sequence[torch.Tensor],
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's weight gradients on the tensor cores
+    (``csrc/bilstm_wgrad_mma.cu``); the contract of :func:`bilstm_wgrad`.
+    Takes the shapes ``wgrad_mma_check`` takes (bfloat16, H % 32 == 0) and
+    raises for the rest. Every block writes its partial tile, an empty row
+    range included, so the ``torch.empty`` partials are whole; an empty
+    batch returns zeros. Its outputs carry no graph, so under grad mode it
+    refuses an operand that requires grad, on the CPU too."""
+    x_parts = tuple(x_parts)
+    _no_graph(dgc, *x_parts, hs_f, hs_b)
+    if not dgc.is_cuda:
+        return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
+    cd = dgc.dtype
+    dev = dgc.device
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    G = groups
+    E_parts = [p.shape[-1] for p in x_parts]
+    wgrad_mma_check(E_parts, H, cd)
+    if B % G:
+        raise ValueError(f"bilstm_wgrad_mma kernel: batch {B} is not a multiple of {G} groups")
+    _check("dgc", dgc, (2, T, B, 4 * H), cd, dev)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("hs_f", hs_f, (T, B, H), cd, dev)
+    _check("hs_b", hs_b, (T, B, H), cd, dev)
+    E = sum(E_parts)
+    if B * T == 0:
+        return (torch.zeros((2, 4 * H, E), dtype=torch.float32, device=dev),
+                torch.zeros((2, G, 4 * H, H), dtype=torch.float32, device=dev))
+    _, _, splits = wgrad_mma_plan(T, B, G, E_parts, H)
+    partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_wgrad_mma").bilstm_wgrad_mma(
+            dgc.data_ptr(), _ptr(x_parts, 0), _ptr(x_parts, 1),
+            E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+            hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
+            T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error("bilstm_wgrad_mma", err)
+    bilstm_wgrad_mma.launches += 1
+    total = partial.sum(dim=0)  # (2, G, 4H, E + H)
+    return total[..., :E].sum(dim=1), total[..., E:].contiguous()
+
+
+bilstm_wgrad_mma.launches = 0
 
 
 def bilstm_gates(

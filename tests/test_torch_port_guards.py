@@ -5,6 +5,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "intrepppid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -45,7 +46,7 @@ def test_every_kernel_source_is_built_and_bound():
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
                        "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
-                       "lstm_recurrence_bwd_mma"}
+                       "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -53,12 +54,13 @@ def test_every_kernel_source_is_built_and_bound():
         assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh"}
     # every constant the wrappers check is exported by its source, and the
-    # two tensor-core sweeps share the fragment header
+    # tensor-core kernels share the fragment header
     for name, (getters, want) in lstm_cuda._CONSTANTS.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert len(getters) == len(want)
         assert all(f"int {g}()" in text for g in getters), name
-    for name in ("bilstm_bwd_mma", "lstm_recurrence_bwd_mma"):
+    for name in ("bilstm_bwd_mma", "lstm_recurrence_bwd_mma", "bilstm_fwd_mma",
+                 "bilstm_wgrad_mma"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "bilstm_mma.cuh"' in text and "mma_bf16(" in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header

@@ -28,6 +28,7 @@ from intrepppid_tpu_torch.__main__ import main as port_main
 from intrepppid_tpu_torch.cli.infer import Infer, _KVStore, stream_fasta
 from intrepppid_tpu_torch.data.ppi_oma import IntrepppidDataset
 from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 SPM = Path(__file__).parent / "fixtures" / "tiny_spm.model"
 AAS = "ACDEFGHIKLMNPQRSTVWY"

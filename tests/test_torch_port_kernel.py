@@ -1,8 +1,9 @@
 """The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
 the eval and train forward, the backward sweep, the weight gradients, the
 wide route's input gates, cluster forward and lite sweep, the time-major
-recurrence op's forward, sweep and weight gradient, and the two bf16
-tensor-core sweeps with the dispatch that picks them), their plain
+recurrence op's forward, sweep and weight gradient, and the bf16
+tensor-core forward, sweeps and weight gradient with the dispatch that
+picks them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
 autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
 
@@ -33,6 +34,7 @@ from intrepppid_tpu_torch.ops.lstm_recurrence import (
     recurrence_sweep,
     recurrence_wgrad,
 )
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 
 def test_bilstm_masking_semantics():
@@ -529,6 +531,145 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
 
 
 
+# ------------------------------------- the tensor-core forward and wgrad
+@pytest.mark.parametrize(
+    "E_parts,H,dtype,kernel",
+    [
+        ([64], 64, torch.bfloat16, "bilstm_fwd_mma"),
+        ([64, 64], 64, torch.bfloat16, "bilstm_fwd_mma"),
+        ([32], 32, torch.bfloat16, "bilstm_fwd_mma"),
+        ([32, 32], 32, torch.bfloat16, "bilstm_fwd_mma"),
+        ([48], 48, torch.bfloat16, "bilstm_fwd_mma"),
+        ([16], 16, torch.bfloat16, "bilstm_fwd_mma"),
+        ([64], 64, torch.float32, "bilstm_fwd"),       # f32 keeps the CUDA-core forward
+        ([64, 64], 64, torch.float32, "bilstm_fwd"),
+        ([32], 64, torch.bfloat16, "bilstm_fwd"),      # (H, E) not instantiated
+        ([60], 64, torch.bfloat16, None),               # parts not multiples of 8
+        ([128, 128], 128, torch.bfloat16, None),        # too wide for either
+    ],
+)
+def test_fwd_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="bilstm kernel.*; bilstm_fwd_mma kernel takes"):
+            lstm_cuda.fwd_kernel(E_parts, H, dtype)
+        return
+    assert lstm_cuda.fwd_kernel(E_parts, H, dtype) == kernel
+    assert lstm_cuda.layer_route(E_parts, H, dtype) == "resident"
+
+
+@pytest.mark.parametrize("H,E", lstm_cuda.FWD_MMA_SHAPES)
+def test_fwd_mma_plan(H, E):
+    """One warp per 8 hidden units; a step's x chunks within the kernel's
+    per-thread constant; the three-stage [x ; h] ring within a block's
+    static shared memory; K whole k16 steps; one and two input parts."""
+    for E_parts in ([E], [E // 2, E // 2]) if (E // 2) % 8 == 0 else ([E],):
+        threads, smem = lstm_cuda.fwd_mma_plan(E_parts, H, torch.bfloat16)
+        assert threads == 4 * H <= lstm_cuda.MAX_THREADS
+        assert E <= lstm_cuda.FWD_MMA_MAX_CHUNKS * threads  # 8 rows x E / 8 chunks
+        assert (E + H) % 16 == 0 and smem <= 48 * 1024 <= lstm_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+        lstm_cuda.fwd_mma_plan([E], H, torch.float32)
+    with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+        lstm_cuda.fwd_mma_plan([E // 3, E // 3, E - 2 * (E // 3)], H, torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "E_parts,H,dtype,kernel",
+    [
+        ([64], 64, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([64, 64], 64, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([32], 32, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([32, 32], 32, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([256], 256, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([256, 256], 256, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([64], 64, torch.float32, "bilstm_wgrad"),     # f32 keeps the CUDA-core kernel
+        ([256, 256], 256, torch.float32, "bilstm_wgrad"),
+        ([16], 16, torch.bfloat16, "bilstm_wgrad"),    # 4H not whole 128-row tiles
+        ([64], 24, torch.bfloat16, None),
+    ],
+)
+def test_wgrad_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="bilstm_wgrad kernel.*; bilstm_wgrad_mma kernel"):
+            lstm_cuda.wgrad_kernel(E_parts, H, dtype)
+        return
+    assert lstm_cuda.wgrad_kernel(E_parts, H, dtype) == kernel
+
+
+@pytest.mark.parametrize("T,B,G,E_parts,H,want", [
+    (1500, 400, 5, [64], 64, (2, 1, 27)), (1500, 400, 1, [64, 64], 64, (2, 2, 66)),
+    (1500, 400, 5, [256], 256, (8, 4, 2)), (1500, 400, 1, [256, 256], 256, (8, 6, 6)),
+    (300, 400, 5, [32], 32, (1, 1, 53)), (3, 400, 5, [64], 64, (2, 1, 8)),
+    (1, 27, 3, [32, 32], 32, (1, 1, 1))])
+def test_wgrad_mma_plan(T, B, G, E_parts, H, want):
+    """Whole 128-row tiles of the gates, 128-column tiles of the source
+    columns, and splits that bring the grid near WGRAD_TARGET_BLOCKS with at
+    least one 32-row K-tile each (more splits than positions at T = 3)."""
+    m_tiles, n_tiles, splits = lstm_cuda.wgrad_mma_plan(T, B, G, E_parts, H)
+    assert (m_tiles, n_tiles, splits) == want
+    assert m_tiles * lstm_cuda.WGRAD_MMA_TILE_M == 4 * H
+    assert (n_tiles - 1) * lstm_cuda.WGRAD_MMA_TILE_N < sum(E_parts) + H
+    assert splits <= -(-T * (B // G) // lstm_cuda.WGRAD_MMA_TILE_K)
+    assert lstm_cuda.WGRAD_MMA_SMEM <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
+
+
+@pytest.mark.parametrize("T,B,G", [(5, 40, 5), (3, 400, 5), (1, 27, 3), (7, 12, 1), (2, 3, 3)])
+def test_wgrad_mma_rows_cover_each_row_once(T, B, G):
+    """The K-tiling as a host-side plan: over a launch's splits, each (t, b)
+    row of a weight group is read exactly once for that group and
+    direction; h_prev is position t - 1 (direction 0) or t + 1 (direction
+    1), and None (read as zeros) past the ends."""
+    splits = lstm_cuda.wgrad_mma_plan(T, B, G, [32], 32)[2]
+    Bg = B // G
+    for d in (0, 1):
+        for g in range(G):
+            rows = [r for split in range(splits)
+                    for r in lstm_cuda.wgrad_mma_rows(T, B, G, splits, split, g, d)]
+            assert sorted((t, b) for t, b, _ in rows) == [
+                (t, b) for t in range(T) for b in range(g * Bg, (g + 1) * Bg)]
+            for t, _, tp in rows:
+                want = t + (1 if d else -1)
+                assert tp == (want if 0 <= want < T else None)
+    # more splits than positions: splits cut inside a position's rows
+    assert lstm_cuda.wgrad_mma_plan(3, 400, 5, [64], 64)[2] > 3
+
+
+def test_forward_and_wgrad_mma_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 6, [32, 32], 32, 2, torch.bfloat16, torch.device("cpu"))
+    cd = torch.bfloat16
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma,
+                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma)
+    before = [f.launches for f in wrappers]
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
+    for got in (lstm_cuda.bilstm_layer_fwd_train_mma(parts, lengths, w_ih, w_hh, bias, cd),
+                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd,
+                                                 kernel="bilstm_fwd")):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_layer_fwd_mma(parts, lengths, w_ih, w_hh, bias, cd),
+                lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    hs_f, hs_b, _, _, cs_f, cs_b = want
+    dgc = bidir_layer_sweep(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                            dy[:1], dy[2:3], dhn, dcn, cd)[2]
+    ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, 2)
+    for got in (lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, 2),
+                lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, 2, kernel="bilstm_wgrad")):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_layer_fwd_mma(parts, lengths, w_ih.clone().requires_grad_(), w_hh,
+                                       bias, cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_layer_fwd_train_mma(parts, lengths, w_ih, w_hh,
+                                             bias.clone().requires_grad_(), cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_wgrad_mma(dgc.clone().requires_grad_(), parts, hs_f, hs_b, 2)
+    with torch.no_grad():
+        lstm_cuda.bilstm_wgrad_mma(dgc.clone().requires_grad_(), parts, hs_f, hs_b, 2)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -601,11 +742,15 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
     bias = torch.rand(2, 4 * H, generator=g, device=cuda_device) - .5
     lengths = torch.randint(0, T + 1, (B,), generator=g, device=cuda_device, dtype=torch.int32)
     lengths[:3] = torch.tensor([0, 1, T])
-    before = lstm_cuda.bilstm_layer_fwd.launches
+    # the launch counts on the wrapper of the kernel the dispatch names
+    wrapper = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd,
+               "bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma}[
+        lstm_cuda.fwd_kernel(E_parts, H, dtype)]
+    before = wrapper.launches
     got = lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype)
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, dtype)
     torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_layer_fwd.launches == before + 1
+    assert wrapper.launches == before + 1
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -859,18 +1004,125 @@ def test_sweep_mma_rejects_what_it_does_not_take_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_model_gradients_take_the_tensor_core_sweep_on_card(cuda_device):
-    """A bf16 model at embedding 64 runs its sweeps on ``bilstm_bwd_mma``
-    (one launch per layer, none of the CUDA-core sweep); its gradients equal
-    the CPU plain path's within 2^-7 x max(1, max|grad|): bf16 streams, and
-    the kernels' other order of sums."""
+    """A bf16 model at embedding 64 runs its train forward, sweeps and
+    weight gradients on the tensor-core kernels (one launch each per layer,
+    none of the CUDA-core ones); its gradients equal the CPU plain path's
+    within 2^-7 x max(1, max|grad|): bf16 streams, and the kernels' other
+    order of sums."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches)
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma,
+                lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_mma,
+                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma)
+    before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=torch.bfloat16, embedding_size=64)
     torch.cuda.synchronize()
-    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
-        before[0], before[1] + 2)
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2, 0, 2, 0, 2]
     want = model_grads(torch.device("cpu"), dtype=torch.bfloat16, embedding_size=64)
     for name, grad in got.items():
         ref = want[name]
         assert float((grad.cpu() - ref).abs().max()) <= 2 ** -7 * max(
             1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B", [
+    ([64], 64, 5, 30), ([64, 64], 64, 1, 50), ([64], 64, 2, 18), ([32], 32, 3, 24),
+    ([32, 32], 32, 1, 13), ([16, 16], 16, 4, 20), ([48], 48, 1, 11)])
+def test_fwd_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
+    """The tensor-core forward against its plain twin in bf16, both
+    variants: 1 and 2 input parts, weight groups of 5, 6, 8, 9, 11, 13 and
+    50 rows (short tiles inside each group), rows of length 0, 1 and T, and
+    rows 8-15 short of T so a tile stops at its longest row. The dispatch
+    hands ``bilstm_layer_fwd(_train)`` to it; the CUDA-core forward asked
+    for by name agrees too."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=T + B)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
+    before = [f.launches for f in wrappers]
+    _close(lstm_cuda.bilstm_layer_fwd_train_mma(*args), want, 3e-2)
+    _close(lstm_cuda.bilstm_layer_fwd_mma(*args), want[:4], 3e-2)
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args), want, 3e-2)
+    _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 3e-2)
+    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 2, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 3, 1])
+@pytest.mark.parametrize("E_parts,H,G,B", [
+    ([64], 64, 5, 30), ([64, 64], 64, 1, 50), ([32], 32, 3, 24), ([32, 32], 32, 1, 13),
+    ([256], 256, 5, 60), ([256, 256], 256, 1, 20), ([64], 64, 4, 400)])
+def test_wgrad_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
+    """The tensor-core weight gradients against their plain twin in bf16:
+    1 and 2 input parts, weight groups of 6, 8, 12, 13, 20, 50 and 100 rows,
+    T = 1 (every h_prev past an end), and T = 3 at 400 rows, where the
+    launch has more splits than positions. The dispatch hands
+    ``bilstm_wgrad`` to it; the CUDA-core kernel asked for by name agrees."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    dgc = (torch.rand(2, T, B, 4 * H, generator=g, device=cuda_device) * 2 - 1).to(cd)
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    if (T, B) == (3, 400):
+        assert lstm_cuda.wgrad_mma_plan(T, B, G, E_parts, H)[2] > T
+    before = (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches)
+    _close(lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G), want, 3e-2)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), want, 3e-2)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches) == (
+        before[0], before[1] + 2)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_forward_and_wgrad_mma_edges_on_card(cuda_device):
+    """An empty batch gives empty streams and zero weight gradients with no
+    launch; T = 0 gives zero final states; f32 operands and a shape the
+    kernels do not take raise in the tensor-core wrappers (nothing falls
+    back), and so does an unknown kernel name."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [64], 64, 2, cd, cuda_device)
+    empty = tuple(p[:, :0].contiguous() for p in parts)
+    before = (lstm_cuda.bilstm_layer_fwd_mma.launches, lstm_cuda.bilstm_wgrad_mma.launches)
+    out = lstm_cuda.bilstm_layer_fwd_mma(empty, lengths[:0], w_ih, w_hh[:, :1].contiguous(),
+                                         bias, cd)
+    assert [tuple(t.shape) for t in out] == [(4, 0, 64), (4, 0, 64), (2, 0, 64), (2, 0, 64)]
+    hs = torch.zeros(4, 0, 64, dtype=cd, device=cuda_device)
+    dw_ih, dw_hh = lstm_cuda.bilstm_wgrad_mma(torch.zeros(2, 4, 0, 256, dtype=cd,
+                                                          device=cuda_device),
+                                              empty, hs, hs, 1)
+    assert not dw_ih.any() and not dw_hh.any() and dw_hh.shape == (2, 1, 256, 64)
+    assert (lstm_cuda.bilstm_layer_fwd_mma.launches,
+            lstm_cuda.bilstm_wgrad_mma.launches) == before
+    none = tuple(p[:0].contiguous() for p in parts)
+    _, _, hn, cn, cs_f, _ = lstm_cuda.bilstm_layer_fwd_train_mma(none, lengths, w_ih, w_hh,
+                                                                 bias, cd)
+    torch.cuda.synchronize()
+    assert not hn.any() and not cn.any() and cs_f.shape == (0, 10, 64)
+    f32 = layer_case(4, 10, [64], 64, 2, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+        lstm_cuda.bilstm_layer_fwd_mma(*f32[:5], torch.float32)
+    with pytest.raises(ValueError, match="bilstm_wgrad_mma kernel takes bfloat16"):
+        hs32 = torch.zeros(4, 10, 64, device=cuda_device)
+        lstm_cuda.bilstm_wgrad_mma(torch.zeros(2, 4, 10, 256, device=cuda_device), f32[0],
+                                   hs32, hs32, 2)
+    with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, kernel="fast")
+    with pytest.raises(ValueError, match="no weight-gradient kernel named"):
+        lstm_cuda.bilstm_wgrad(torch.zeros(2, 4, 10, 256, dtype=cd, device=cuda_device), parts,
+                               hs.new_zeros(4, 10, 64), hs.new_zeros(4, 10, 64), 2, kernel="x")

@@ -16,6 +16,7 @@ from intrepppid_tpu.ops import lstm_pallas_packed
 from intrepppid_tpu.ops.lstm import bilstm as jax_bilstm
 from intrepppid_tpu.ops.lstm import init_lstm_params
 from intrepppid_tpu_torch.ops.lstm import bilstm
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # f32: summation order differs; bf16: the layer outputs are rounded to bf16

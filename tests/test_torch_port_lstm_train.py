@@ -17,6 +17,7 @@ import torch
 import intrepppid_tpu.ops.lstm_pallas_layer as LPL
 from intrepppid_tpu.ops.lstm import _bilstm_pallas, init_lstm_params
 from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_bwd, bilstm
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -34,6 +34,7 @@ from intrepppid_tpu_torch.ops.lstm import (
     input_gates,
 )
 from intrepppid_tpu_torch.utils.convert import from_jax_params
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 ROUTE_PLAN = {"wide": False, "resident": True}

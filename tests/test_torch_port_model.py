@@ -12,6 +12,7 @@ from intrepppid_tpu_torch.models.awd_lstm import EncoderConfig, group_max_length
 from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.ops.dropout import embedding_lookup
 from intrepppid_tpu_torch.utils.convert import from_jax_params, load_reference_checkpoint
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 VOCAB, EMBED = 38, 16
 

@@ -27,6 +27,7 @@ from intrepppid_tpu.ops.lstm_pallas import fused_lstm_recurrence as jax_recurren
 from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.ops import bilstm, fused_lstm_recurrence
 from intrepppid_tpu_torch.utils.convert import from_jax_params
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # f32: both sides sum the same products in f32, in another order. bf16: h,

@@ -25,6 +25,7 @@ from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
 from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.serve import CoalescingScorer, PPIServer, ScoringEngine
 from intrepppid_tpu_torch.utils.convert import from_jax_params
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 SPM = FIXTURES / "tiny_spm.model"

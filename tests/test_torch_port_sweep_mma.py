@@ -18,6 +18,7 @@ import intrepppid_tpu.ops.lstm_pallas_layer as LPL
 from intrepppid_tpu.ops.lstm import _bilstm_pallas, init_lstm_params
 from intrepppid_tpu_torch.ops import lstm_cuda
 from intrepppid_tpu_torch.ops.lstm import bilstm
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 B, T, H, G = 10, 16, 64, 5
 

@@ -9,6 +9,7 @@ import pytest
 
 from intrepppid_tpu.data.tokenizer import SentencePieceTokenizer as JaxTokenizer
 from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 FIXTURES = Path(__file__).parent / "fixtures"
 AAS = "ACDEFGHIKLMNPQRSTVWYXBZU"

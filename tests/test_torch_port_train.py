@@ -26,6 +26,7 @@ from intrepppid_tpu_torch.optim import Ranger21, make_optimizer
 from intrepppid_tpu_torch.train import EpochAccumulator, Trainer
 from intrepppid_tpu_torch.utils.convert import from_jax_params
 from ranger21_oracle import Ranger21Oracle
+from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 VOCAB, EMBED, PAIRS, T = 38, 16, 4, 24
 NO_DROPOUT = dict(rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
