@@ -29,10 +29,15 @@ exits non-zero with no result):
    E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
    per-group maxima: in bf16 the forward, the sweep and wgrad are the
    tensor-core kernels (``bilstm_layer_fwd(_train)_mma``,
-   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), and the CUDA-core ones, asked
-   for by name, are held too; ragged cases (27 rows in 3 groups, T = 1,
-   rows of length 0); then each kernel (in bf16 the new and the old in
-   turns, new, old, old, new, in the same run) and a PyTorch yardstick
+   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the sweep is the
+   3xTF32 tensor-core kernel (``bilstm_bwd_f32``), and the CUDA-core ones,
+   asked for by name, are held too, and the twin with its products in one
+   tf32 pass is recorded beside them (a control for the f32 tolerance); ragged
+   cases (27 rows in 3 groups, T = 1, rows of length 0); ``bilstm_bwd.cu``
+   at its own main path's shapes (E = H = 80, one layer, 5 groups); then
+   each kernel (in bf16 the new and the old
+   in turns, new, old, old, new, in the same run; in f32 the two sweeps so)
+   and a PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
    bf16, cuBLAS products in the same dtype) timed with CUDA events at full
    lengths, TF32 off; the plain versions are timed once, in the check;
@@ -42,10 +47,13 @@ exits non-zero with no result):
    warm-up steps, 12 timed steps and an eval step, a profiled step, and
    each kernel's launch count: the tensor-core forward (both variants),
    ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma`` must be > 0 and the
-   CUDA-core forward, sweep and wgrad 0; then 2 steps of the same model in
-   f32, which must run the CUDA-core kernels alone; then one step's
-   gradients on the card held against the port's CPU plain path at a small
-   size, in f32 and in bf16;
+   CUDA-core forward, sweep and wgrad and ``bilstm_bwd_f32`` 0; then 2 steps
+   of the same model in f32 (and a profiled one), which must run the
+   CUDA-core forward and wgrad and ``bilstm_bwd_f32``, and 2 f32 steps of a
+   one-layer model at embedding 80, whose sweep only ``bilstm_bwd.cu``
+   takes; then one step's gradients on the card held against the port's CPU
+   plain path at a small size, in f32 (also at embedding 80, one layer) and
+   in bf16;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -70,19 +78,23 @@ exits non-zero with no result):
    (mixing 0, 1, T and random values; a suffix for the reverse direction)
    and a random mask with holes, an all-zero and an all-one row. In bf16
    at H = 64 and 32 the sweep is the tensor-core kernel
-   (``lstm_recurrence_bwd_mma``), and the cluster one, asked for by name,
-   is held and timed beside it; a ragged case (27 rows in 3 groups,
-   T = 1). Each is timed with CUDA events beside its plain version and a
-   PyTorch yardstick (one bidirectional ``nn.LSTM`` layer at full lengths,
-   in f32 and at H = 64 and 32 in bf16, which also does the input
-   projection; cuBLAS for the weight gradient in the compute dtype);
+   (``lstm_recurrence_bwd_mma``), and in bf16 the weight gradient is
+   ``lstm_recurrence_wgrad_mma``; the cluster sweep and the CUDA-core
+   wgrad, asked for by name, are held and timed beside them (new, old, old,
+   new); ragged cases (27 rows in 3 groups, T = 1, 2 and 5). Each is timed
+   with CUDA events beside its plain version and a PyTorch yardstick (one
+   bidirectional ``nn.LSTM`` layer at full lengths, in f32 and at H = 64
+   and 32 in bf16, which also does the input projection; for the weight
+   gradient one batched cuBLAS product on the rounded operands and, in
+   bf16, the rounding, layout and product together);
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
-   wgrad must be > 0, the cluster sweep and the layer kernels 0; then 2
-   f32 steps, whose sweep must be the cluster kernel alone; a profiled
-   step, peak memory, and the card's gradients against the CPU's on the
-   same backend, in f32 and in bf16;
+   ``lstm_recurrence_wgrad_mma`` must be > 0, the cluster sweep, the
+   CUDA-core wgrad and the layer kernels 0; then 2 f32 steps (and a
+   profiled one), whose sweep and wgrad must be the cluster sweep and the
+   CUDA-core wgrad alone; a profiled step, peak memory, and the card's
+   gradients against the CPU's on the same backend, in f32 and in bf16;
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -90,7 +102,8 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     eval kernel's launch count; file-to-file seconds and pairs/s, and
     where the time goes;
-11. the ``kernels`` line, the card's name and power limit, and the result.
+11. the ``kernels`` line (eighteen kernels, each with launches > 0 on a main
+    path), the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -124,10 +137,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the scaled configuration: BASELINE.json configs[4],
 # tools/experiment_scaled_config.py:27-33 (embedding = hidden 256, 3 layers)
 E_SCALED, LAYERS_SCALED = 256, 3
-# H100 SXM published peaks (dense): f32 on CUDA cores, bf16 on tensor
-# cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): f32 on CUDA cores, bf16 and tf32 on
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -141,7 +155,9 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
+        REC_WGRAD_MMA_SMEM,
         WGRAD_MMA_SMEM,
+        bwd_f32_plan,
         bwd_launch_plan,
         bwd_mma_plan,
         fwd_mma_plan,
@@ -171,8 +187,11 @@ def phase_build() -> dict:
             E_parts, H_SERVE, torch.bfloat16)[1]
         smem[f"fwd_mma (static) bfloat16 E={sum(E_parts)}"] = fwd_mma_plan(
             E_parts, H_SERVE, torch.bfloat16)[1]
+        smem[f"bwd_f32 float32 E={sum(E_parts)}"] = bwd_f32_plan(
+            E_parts, H_SERVE, torch.float32)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
+    smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -210,6 +229,12 @@ def rel_err(got, want, tol):
     a, b = got.float(), want.float()
     e, scale = float((a - b).abs().max()), max(1.0, float(b.abs().max()))
     return e, e <= tol * scale
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max(1, max|want|): what the tolerances bound."""
+    a, b = got.float(), want.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -515,10 +540,12 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
 
 
 # ----------------------------------------------------------- train kernels
-def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False, T=T_TRAIN):
+def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False, T=T_TRAIN,
+                       ny=None):
     """One train layer's operands at B_TRAIN rows: forward inputs, and the
-    backward's dy streams (two per direction for the lower layer, one for
-    the top) and final-state cotangents."""
+    backward's dy streams (``ny`` per direction; by default two for the
+    lower layer of the two-layer stack, one for the top) and final-state
+    cotangents."""
     parts, lengths, w_ih, _, bias = layer_inputs(
         B_TRAIN, T, E_parts, H, dtype, dev, seed, full_lengths)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -534,7 +561,8 @@ def train_layer_inputs(E_parts, H, G, dtype, dev, seed, full_lengths=False, T=T_
         Bg = B_TRAIN // G_TRAIN
         lengths[: 3 * Bg] = torch.tensor([0, 1, T], dtype=torch.int32,
                                          device=dev).repeat_interleave(Bg)
-    ny = 2 if len(E_parts) == 1 else 1
+    if ny is None:
+        ny = 2 if len(E_parts) == 1 else 1
     dyf = tuple(u(T, B_TRAIN, H).to(dtype) for _ in range(ny))
     dyb = tuple(u(T, B_TRAIN, H).to(dtype) for _ in range(ny))
     return parts, lengths, w_ih, w_hh, bias, dyf, dyb, u(2, B_TRAIN, H), u(2, B_TRAIN, H)
@@ -576,28 +604,42 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
     return lambda: (torch.matmul(d, x), torch.matmul(dg, hp))
 
 
-def add_bounds(t: dict, work: dict, dtype) -> None:
-    """For each kernel k with work[k] = (flops, bytes): the least time the
-    card could take (operations over the dtype's peak, bytes over the HBM
-    rate, whichever is larger) and which of the two it is."""
-    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+def kernel_peak(dtype, name: str = "") -> float:
+    """Peak rate of a kernel's products: the f32 sweep ``bilstm_bwd_f32``
+    does three tf32 tensor-core products for each f32 one (3xTF32); every
+    other kernel runs at its dtype's rate (f32 on the CUDA cores)."""
+    if name == "bilstm_bwd_f32":
+        return PEAK_TF32_FLOPS / 3
+    return PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def bound(parts) -> tuple:
+    """(ms, bound_by): the least time the card could take for work done as
+    ``parts``, each (flops, bytes, peak FLOP/s): the operations over their
+    peaks or all bytes over the HBM rate, whichever is larger."""
+    ops_ms = sum(f / p for f, _, p in parts) * 1e3
+    bytes_ms = sum(b for _, b, _ in parts) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def add_bounds(t: dict, work: dict, dtype, peaks=None) -> None:
+    """For each kernel k with work[k] = (flops, bytes): its bound (``bound``)
+    at the dtype's peak, or at ``peaks[k]`` where given."""
     for k, (f, b) in work.items():
-        ops_ms, bytes_ms = f / peak * 1e3, b / PEAK_BYTES * 1e3
+        peak = (peaks or {}).get(k, kernel_peak(dtype))
         t[f"{k}_flops"], t[f"{k}_bytes"] = f, b
-        t[f"{k}_bound_ms"] = max(ops_ms, bytes_ms)
-        t[f"{k}_bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        t[f"{k}_bound_ms"], t[f"{k}_bound_by"] = bound([(f, b, peak)])
 
 
-def cudnn_stack_times(dev, dtype) -> dict:
-    """cuDNN yardstick: the manuscript two-layer bidirectional ``nn.LSTM`` at
-    the train shape in ``dtype``, TF32 off: the training-mode forward, then
-    the backward for the input alone and for input and weights (each the
-    forward and backward together, less the forward), and the inference
-    forward."""
-    H = H_SERVE
-    lstm = torch.nn.LSTM(E_SERVE, H, num_layers=2, bidirectional=True).to(dev).to(dtype)
+def cudnn_stack_times(dev, dtype, E=E_SERVE, H=H_SERVE, layers=2) -> dict:
+    """cuDNN yardstick: a bidirectional ``nn.LSTM`` (by default the
+    manuscript two layers) at the train shape in ``dtype``, TF32 off: the
+    training-mode forward, then the backward for the input alone and for
+    input and weights (each the forward and backward together, less the
+    forward), and the inference forward."""
+    lstm = torch.nn.LSTM(E, H, num_layers=layers, bidirectional=True).to(dev).to(dtype)
     lstm.flatten_parameters()
-    x = (torch.rand(T_TRAIN, B_TRAIN, E_SERVE, device=dev) * 2 - 1).to(dtype).requires_grad_()
+    x = (torch.rand(T_TRAIN, B_TRAIN, E, device=dev) * 2 - 1).to(dtype).requires_grad_()
     dy = (torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1).to(dtype)
     fwd_ms = time_ms(lambda: lstm(x), 5)
     full_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 5)
@@ -618,15 +660,18 @@ def sweep_names(dxf, dxb):
 
 
 def ragged_sweep_check(dev) -> list:
-    """The tensor-core sweep against its twin where no size is round: 27
-    rows in 3 weight groups of 9 (a short tile in each group), T = 1, both
-    layer shapes, bf16."""
+    """The tensor-core sweeps against their twin where no size is round: 27
+    rows in 3 weight groups of 9 (a short tile in each group), T = 1, rows
+    of length 0, both layer shapes, in bf16 (``bilstm_bwd_mma``) and in f32
+    (``bilstm_bwd_f32``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_sweep
 
-    cd, H, B, G, T = torch.bfloat16, H_SERVE, 27, 3, 1
+    H, B, G, T = H_SERVE, 27, 3, 1
     out = []
-    for i, E_parts in enumerate(([E_SERVE], [H, H])):
+    for cd, i, E_parts in ((cd, i, E_parts) for cd in (torch.bfloat16, torch.float32)
+                           for i, E_parts in enumerate(([E_SERVE], [H, H]))):
+        kernel = L.bilstm_bwd_mma if cd == torch.bfloat16 else L.bilstm_bwd_f32
         g = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
 
         def u(*shape, scale=1.0):
@@ -645,13 +690,14 @@ def ragged_sweep_check(dev) -> list:
                                                    with_states=True)
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                 u(2, B, H), u(2, B, H), cd)
-        got, want = L.bilstm_bwd_mma(*args), bidir_layer_sweep(*args)
+        got, want = kernel(*args), bidir_layer_sweep(*args)
         torch.cuda.synchronize()
         flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
         res = {n: rel_err(a, b, TOL[cd])
                for n, a, b in zip(sweep_names(*got[:2]), flat(got), flat(want))}
-        check = {"kernel": "bilstm_bwd_mma", "B": B, "G": G, "T": T, "H": H, "E_parts": E_parts,
-                 "dtype": "bfloat16", "max_abs_err": {n: e for n, (e, _) in res.items()},
+        check = {"kernel": kernel.__name__, "B": B, "G": G, "T": T, "H": H, "E_parts": E_parts,
+                 "dtype": str(cd).replace("torch.", ""),
+                 "max_abs_err": {n: e for n, (e, _) in res.items()},
                  "tol": f"{TOL[cd]} x max(1, max|ref|)"}
         out.append(check)
         if not all(ok for _, ok in res.values()):
@@ -706,6 +752,49 @@ def ragged_fwd_wgrad_check(dev) -> list:
     return out
 
 
+def embedding_80_sweep(dev) -> dict:
+    """``bilstm_bwd.cu`` at the shapes of its main path, the f32 steps of a
+    one-layer model at embedding 80 (E = H = 80, 5 weight groups, one dy
+    stream a direction, 400 rows, T = 1500; the tensor-core sweeps take
+    H <= 64): held against its plain twin with the main path's lengths
+    (groups at 0, 1 and T), then timed at full lengths beside the twin
+    (timed once, in the check), its bound at the CUDA cores' f32 rate and
+    cuDNN's one-layer backward for the input, TF32 off."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
+
+    E_parts, H, G, cd = [80], 80, G_TRAIN, torch.float32
+    if L.sweep_kernel(E_parts, H, cd) != "bilstm_bwd":
+        raise AssertionError(f"embedding 80's sweep is {L.sweep_kernel(E_parts, H, cd)}")
+    out = {"kernel": "bilstm_bwd", "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
+           "E_parts": E_parts, "ny": 1, "dtype": "float32", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    for full in (False, True):
+        parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+            E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=1)
+        hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
+                                                                bias, cd)
+        args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
+                cd)
+        if full:
+            out["ms"] = time_ms(lambda: L.bilstm_bwd(*args), 3)
+            add_bounds(out, {"bwd": train_layer_work(sum(E_parts), H, 4, 1)["bwd"]}, cd)
+        else:
+            ref, out["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+            got = L.bilstm_bwd(*args)
+            flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+            res = {n: rel_err(a, b, TOL[cd])
+                   for n, a, b in zip(sweep_names(*ref[:2]), flat(got), flat(ref))}
+            torch.cuda.synchronize()
+            out["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "train_kernel", "failed": out})
+                raise AssertionError(f"bilstm_bwd disagrees with its plain version: {out}")
+            del ref, got
+        del parts, hs_f, hs_b, cs_f, cs_b, args
+    out["library_ms"] = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)["cudnn_bwd_data_ms"]
+    return out
+
+
 def in_turns(new, old, reps: int) -> tuple:
     """Two kernels on the same operands timed new, old, old, new in one run
     on one card: (first new ms, second new ms, mean old ms)."""
@@ -722,8 +811,9 @@ def phase_train_kernel(dev) -> dict:
     err = rel_err
     checks = []
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
-    # the kernels the dispatch names: bf16 the tensor-core ones, f32 the others
-    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"),
+    # the kernels the dispatch names: bf16 the tensor-core ones; f32 the
+    # CUDA-core forward and wgrad and the 3xTF32 tensor-core sweep
+    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the plain versions (Python loops over T) are timed here, once each
     plain_ms = {dtype: {"fwd": 0.0, "fwd_eval": 0.0, "bwd": 0.0, "wgrad": 0.0}
@@ -763,16 +853,28 @@ def phase_train_kernel(dev) -> dict:
             plain_ms[dtype]["wgrad"] += ms
             refs = list(ref[0]) + list(ref[1]) + list(ref[2:])
             gnames = sweep_names(*ref[:2])
-            # the sweep the dispatch picks (bf16: the tensor-core kernel), and
-            # in bf16 also the CUDA-core kernel by name
+            # the sweep the dispatch picks (a tensor-core kernel in either
+            # dtype), and the CUDA-core kernel by name
             dxf, dxb, dgc, dbias = L.bilstm_bwd(*bwd_args)
-            res.update({n: err(a, b, TOL[dtype])
-                        for n, a, b in zip(gnames, list(dxf) + list(dxb) + [dgc, dbias], refs)})
-            if bf16:
-                old = L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")
-                res.update({f"cuda_core_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(
-                    gnames, list(old[0]) + list(old[1]) + list(old[2:]), refs)})
-                del old
+            got = list(dxf) + list(dxb) + [dgc, dbias]
+            res.update({n: err(a, b, TOL[dtype]) for n, a, b in zip(gnames, got, refs)})
+            scaled = {}
+            if not bf16:
+                # the control the f32 tolerance must tell apart from the
+                # kernel: the twin with its products in one tf32 pass (cuBLAS)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                one_pass = bidir_layer_sweep(*bwd_args)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                scaled = {"scaled_err": max(scaled_err(a, b) for a, b in zip(got, refs)),
+                          "tf32_one_pass_scaled_err": max(scaled_err(a, b) for a, b in zip(
+                              list(one_pass[0]) + list(one_pass[1]) + list(one_pass[2:]),
+                              refs))}
+                del one_pass
+            del got
+            old = L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")
+            res.update({f"cuda_core_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(
+                gnames, list(old[0]) + list(old[1]) + list(old[2:]), refs)})
+            del old
             dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             res["dW_ih"], res["dW_hh"] = (err(dw_ih, ref_w[0], TOL[dtype]),
                                           err(dw_hh, ref_w[1], TOL[dtype]))
@@ -784,7 +886,7 @@ def phase_train_kernel(dev) -> dict:
             check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
                      "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
                      "kernels": picked[dtype],
-                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "max_abs_err": {n: e for n, (e, _) in res.items()}, **scaled,
                      "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
             checks.append(check)
             del parts, want, ref, ref_w, refs, dgc, dxf, dxb, bwd_args
@@ -802,8 +904,9 @@ def phase_train_kernel(dev) -> dict:
         t = {f"{k}_ms": 0.0 for k in keys}
         t["wgrad_library_ms"] = 0.0
         t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items() if v})
-        if bf16:
-            t.update({f"{k}_{what}": 0.0 for k in keys for what in ("ms_again", "cuda_core_ms")})
+        # in turns with the CUDA-core kernel: every kernel in bf16, the sweep in f32
+        turns = keys if bf16 else ["bwd"]
+        t.update({f"{k}_{what}": 0.0 for k in turns for what in ("ms_again", "cuda_core_ms")})
         work = {k: [0.0, 0.0] for k in keys}
         for i, (E_parts, G) in enumerate(layers):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
@@ -825,7 +928,7 @@ def phase_train_kernel(dev) -> dict:
                                                  kernel="bilstm_wgrad")),
             }
             for k, (new, old) in calls.items():
-                if bf16:
+                if k in turns:
                     # new, old, old, new: both kernels in one run, on one card
                     a, b, c = in_turns(new, old, 5 if k != "bwd" else 3)
                     t[f"{k}_ms"] += a
@@ -838,14 +941,14 @@ def phase_train_kernel(dev) -> dict:
                 work[k][0] += f
                 work[k][1] += b
             del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args, calls
-        add_bounds(t, work, dtype)
+        add_bounds(t, work, dtype, {"bwd": kernel_peak(dtype, picked[dtype][1])})
         t["kernels"] = picked[dtype]
         # the yardstick the port never calls: cuDNN in the same dtype
         t.update(cudnn_stack_times(dev, dtype))
         timings[name] = t
 
     out = {"phase": "train_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings,
+           "timings": timings, "embedding_80_sweep": embedding_80_sweep(dev),
            "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
                      "layers": "E=64 (grouped W_hh) + E=2x64"}}
     emit(out)
@@ -876,6 +979,7 @@ def train_counters():
     return {"bilstm_layer_fwd_train": L.bilstm_layer_fwd_train,
             "bilstm_layer_fwd_train_mma": L.bilstm_layer_fwd_train_mma,
             "bilstm_bwd": L.bilstm_bwd, "bilstm_bwd_mma": L.bilstm_bwd_mma,
+            "bilstm_bwd_f32": L.bilstm_bwd_f32,
             "bilstm_wgrad": L.bilstm_wgrad, "bilstm_wgrad_mma": L.bilstm_wgrad_mma,
             "bilstm_layer_fwd": L.bilstm_layer_fwd,
             "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma, "bilstm_gates": L.bilstm_gates,
@@ -884,7 +988,8 @@ def train_counters():
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
-            "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad}
+            "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad,
+            "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -916,13 +1021,15 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_cuda_core": "bilstm_layer_fwd_kernel",
-                "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_cuda_core": "bilstm_bwd_kernel",
+                "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_kernel",
+                "sweep_cuda_core": "bilstm_bwd_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_cuda_core": "bilstm_wgrad_kernel"})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite train loss: {losses}, eval {eval_loss}")
     new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
            "bilstm_wgrad_mma")
-    old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_wgrad")
+    old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
+           "bilstm_wgrad")
     missing = [n for n in new if launches[n] <= 0]
     ran_old = [n for n in old if launches[n] != 0]
     if missing or ran_old:
@@ -930,9 +1037,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
             f"the bf16 train and eval steps never launched {missing}, or ran the CUDA-core "
             f"{ran_old}")
     del trainer, net
-    f32 = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd", "bilstm_wgrad"),
-                    ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma"))
+    f32 = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd_f32", "bilstm_wgrad"),
+                    ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma",
+                     "bilstm_bwd"))
+    # bilstm_bwd.cu keeps the resident shapes the tensor-core sweeps do not
+    # take: a one-layer f32 model at embedding 80 (H > 64) runs its sweep
+    f32_cuda_core = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd",
+                                             "bilstm_wgrad"),
+                              ("bilstm_bwd_f32", "bilstm_bwd_mma"), embedding_size=80,
+                              rnn_num_layers=1)
     grad_check = train_grad_check(dev)
+    grad_check_80 = train_grad_check(dev, embedding_size=80, rnn_num_layers=1)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
@@ -940,22 +1055,25 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
            "median_step_ms": median, "pairs_per_s": PAIRS_TRAIN / median * 1e3,
            "losses": losses, "eval_loss": eval_loss, "eval_step_ms": eval_ms,
            "launches": launches, "peak_memory_gib": peak_gib,
-           "step_profile": breakdown, "float32_steps": f32, "grad_check": grad_check,
-           "grad_check_bf16": grad_check_bf16}
+           "step_profile": breakdown, "float32_steps": f32,
+           "float32_steps_embedding_80": f32_cuda_core, "grad_check": grad_check,
+           "grad_check_embedding_80": grad_check_80, "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
 
-def f32_steps(dev, batches, expect, never, steps=2) -> dict:
+def f32_steps(dev, batches, expect, never, steps=2, **widths) -> dict:
     """The same train step with the model in f32 (the factory's default
     compute dtype), a main path of its own: the counts are set to 0 just
-    before and read just after. The dispatch is by dtype: the kernels in
-    ``expect`` must launch and those in ``never`` must not."""
+    before and read just after. The dispatch is by dtype and shape: the
+    kernels in ``expect`` must launch and those in ``never`` must not.
+    ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
+    Then one more step, profiled, after the counts are read."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
     from intrepppid_tpu_torch.train import Trainer
 
     net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.float32,
-                             optimizer_type="ranger21_xx", device=dev, seed=SEED)
+                             optimizer_type="ranger21_xx", device=dev, seed=SEED, **widths)
     trainer = Trainer(net, seed=SEED)
     counters = train_counters()
     for fn in counters.values():
@@ -972,8 +1090,15 @@ def f32_steps(dev, batches, expect, never, steps=2) -> dict:
     wrong = [n for n in never if launches[n] != 0]
     if missing or wrong:
         raise AssertionError(f"the f32 train steps never launched {missing} or ran {wrong}")
-    return {"dtype": "float32", "steps": steps, "step_ms": step_ms, "losses": losses,
-            "launches": launches}
+    profile = profile_device(
+        lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
+        groups={"fwd": ("bilstm_layer_fwd_kernel", "lstm_recurrence_fwd_kernel"),
+                "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
+                          "lstm_recurrence_bwd_kernel"),
+                "wgrad": ("bilstm_wgrad_kernel", "lstm_recurrence_wgrad_kernel"),
+                "gemm": ("gemm", "nvjet", "xmma")})
+    return {"dtype": "float32", "steps": steps, **widths, "step_ms": step_ms, "losses": losses,
+            "launches": launches, "step_profile": profile}
 
 
 def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
@@ -1107,6 +1232,13 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
     gnames = ([f"dxf{k}" for k in range(len(dxf))] + [f"dxb{k}" for k in range(len(dxb))]
               + ["dW_ih", "dW_hh", "dbias"])
     res.update({n: rel_err(a, b, tol) for n, a, b in zip(gnames, grads, refs)})
+    if dtype == torch.float32:
+        # the dispatch took the 3xTF32 sweep; the CUDA-core one by name
+        old = L.bilstm_bwd(*args, kernel="bilstm_bwd")
+        nx = 2 * len(dxf)
+        res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
+            gnames[:nx] + gnames[-1:], list(old[0]) + list(old[1]) + [old[3]],
+            refs[:nx] + refs[-1:])})
     if dtype == torch.bfloat16:
         # the dispatch took the tensor-core forward and wgrad; the CUDA-core ones by name
         res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
@@ -1131,7 +1263,7 @@ def row4_timings(dev, T=300) -> dict:
     out = {}
     for H, dtype in ((128, torch.float32), (32, torch.float32), (32, torch.bfloat16)):
         t = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-        work = [0.0, 0.0]
+        work = []  # (flops, bytes, peak) of each kernel the route runs
         size = torch.empty((), dtype=dtype).element_size()
         for i, (E_parts, G) in enumerate((([H], G_TRAIN), ([H, H], 1))):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
@@ -1141,11 +1273,18 @@ def row4_timings(dev, T=300) -> dict:
             args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
                     dtype)
 
-            def kernels():
-                dgc = L.layer_bwd(*args)[2]
+            def kernels(**kernel):
+                dgc = (L.bilstm_bwd(*args, **kernel) if kernel else L.layer_bwd(*args))[2]
                 return L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
 
-            t["kernel_ms"] += time_ms(kernels, 3)
+            if dtype == torch.float32 and L.layer_route(E_parts, H, dtype) == "resident":
+                # new, old, old, new: the 3xTF32 sweep and the CUDA-core one
+                a, b, c = in_turns(kernels, lambda: kernels(kernel="bilstm_bwd"), 3)
+                t["kernel_ms"] += a
+                t["kernel_ms_again"] = t.get("kernel_ms_again", 0.0) + b
+                t["kernel_cuda_core_ms"] = t.get("kernel_cuda_core_ms", 0.0) + c
+            else:
+                t["kernel_ms"] += time_ms(kernels, 3)
             t["plain_ms"] += time_ms(lambda: bidir_layer_bwd(*args), 1)
             lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev).to(dtype)
             x = (torch.rand(T, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).to(dtype)
@@ -1158,15 +1297,16 @@ def row4_timings(dev, T=300) -> dict:
             route = L.layer_route(E_parts, H, dtype)
             if route == "wide":
                 w = wide_layer_work(sum(E_parts), H, G, size, len(dyf), T=T)
-                keys = ("gates", "lite", "wgrad")
+                peaks = dict.fromkeys(("gates", "lite", "wgrad"), kernel_peak(dtype))
             else:
                 w = train_layer_work(sum(E_parts), H, size, len(dyf), T=T, G=G)
-                keys = ("bwd", "wgrad")
-            work[0] += sum(w[k][0] for k in keys)
-            work[1] += sum(w[k][1] for k in keys)
+                peaks = {"bwd": kernel_peak(dtype, L.sweep_kernel(E_parts, H, dtype)),
+                         "wgrad": kernel_peak(dtype)}
+            work += [(*w[k], peak) for k, peak in peaks.items()]
             t[f"route_{i}"] = route
             del parts, hs_f, hs_b, cs_f, cs_b, args, lstm, x, dy
-        add_bounds(t, {"bwd": work}, dtype)
+        t["bwd_flops"], t["bwd_bytes"] = (sum(w[0] for w in work), sum(w[1] for w in work))
+        t["bwd_bound_ms"], t["bwd_bound_by"] = bound(work)
         out[f"H{H}_{str(dtype).replace('torch.', '')}"] = {
             "T": T, "layers": f"E={H} (5 groups) + E=2x{H}", **t}
     return out
@@ -1458,9 +1598,15 @@ def recurrence_library(T, H, dev, B=B_TRAIN, dtype=torch.float32):
 
 def ragged_recurrence_check(dev) -> list:
     """The tensor-core recurrence sweep against its twin where no size is
-    round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16."""
+    round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16;
+    then the tensor-core wgrad there at T = 1 (no row), 2 and 5, at H = 64
+    and at H = 96 (a partial column tile)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
-    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+    from intrepppid_tpu_torch.ops.lstm_recurrence import (
+        recurrence_fwd,
+        recurrence_sweep,
+        recurrence_wgrad,
+    )
 
     cd, out = torch.bfloat16, []
     for mask in ("lengths", "holes"):
@@ -1477,6 +1623,22 @@ def ragged_recurrence_check(dev) -> list:
         if not ok:
             emit({"phase": "recurrence_kernel", "failed": check})
             raise AssertionError(f"the ragged recurrence sweep disagrees with its twin: {check}")
+    for H in (H_SERVE, 96):
+        for T in (1, 2, 5):
+            g = torch.Generator(device=dev).manual_seed(SEED + 85 + T)
+            hs = torch.rand(T, D_REC, 27, H, generator=g, device=dev) * 2 - 1
+            dxg = torch.rand(T, D_REC, 27, 4 * H, generator=g, device=dev) * 2 - 1
+            e, ok = rel_err(L.lstm_recurrence_wgrad_mma(hs, dxg, 3, cd),
+                            recurrence_wgrad(hs, dxg, 3, cd), TOL[cd])
+            torch.cuda.synchronize()
+            check = {"kernel": "lstm_recurrence_wgrad_mma", "B": 27, "G": 3, "T": T, "D": D_REC,
+                     "H": H, "dtype": "bfloat16", "max_abs_err": {"dw": e},
+                     "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+            out.append(check)
+            if not ok:
+                emit({"phase": "recurrence_kernel", "failed": check})
+                raise AssertionError(
+                    f"the ragged recurrence wgrad disagrees with its twin: {check}")
     return out
 
 
@@ -1512,11 +1674,17 @@ def phase_recurrence_kernel(dev) -> dict:
                     res["cluster_dxg"] = rel_err(
                         L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, tol)
                 dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
+                # the wgrad the dispatch picks (bf16: the tensor-core kernel),
+                # and there also the CUDA-core kernel by name
+                wgrad = L.recurrence_wgrad_kernel(H, dtype)
                 res["dw"] = rel_err(L.lstm_recurrence_wgrad(hs, dxg, G, dtype), dw, tol)
+                if wgrad == "lstm_recurrence_wgrad_mma":
+                    res["cuda_core_dw"] = rel_err(L.lstm_recurrence_wgrad(
+                        hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), dw, tol)
                 torch.cuda.synchronize()
                 shape = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
                          "dtype": str(dtype).replace("torch.", ""), "mask": mask,
-                         "sweep": sweep}
+                         "sweep": sweep, "wgrad": wgrad}
                 check = {**shape, "valid_share": float(valid.float().mean()),
                          "max_abs_err": {n: e for n, (e, _) in res.items()},
                          "tol": f"{tol} x max(1, max|ref|)"}
@@ -1528,10 +1696,16 @@ def phase_recurrence_kernel(dev) -> dict:
                 t = {**shape,
                      "fwd_ms": time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype), 3),
                      "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
-                     "wgrad_ms": time_ms(
-                         lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
+                new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
+                if wgrad == "lstm_recurrence_wgrad_mma":
+                    # new, old, old, new: both wgrads in one run, on one card
+                    t["wgrad_ms"], t["wgrad_ms_again"], t["wgrad_cuda_core_ms"] = in_turns(
+                        new_wgrad, lambda: L.lstm_recurrence_wgrad(
+                            hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), 3)
+                else:
+                    t["wgrad_ms"] = time_ms(new_wgrad, 3)
                 if sweep == "lstm_recurrence_bwd_mma":
                     # new, old, old, new: both sweeps in one run, on one card
                     old = [time_ms(lambda: L.lstm_recurrence_bwd(
@@ -1544,14 +1718,24 @@ def phase_recurrence_kernel(dev) -> dict:
                     # yardsticks the port never calls: cuDNN for the recurrence
                     # and the sweep (it also does the input projection), one
                     # batched cuBLAS product for the weight gradient, on the
-                    # operands rounded to the compute dtype as the kernel reads them
+                    # operands rounded to the compute dtype as the kernel reads
+                    # them ("bmm alone") and, in bf16, the whole function in
+                    # PyTorch from the f32 streams: round, lay out, multiply
                     Bg = B_TRAIN // G
-                    hp = hs[:-1].view(T - 1, D_REC, G, Bg, H).permute(1, 2, 4, 0, 3).reshape(
-                        D_REC, G, H, (T - 1) * Bg).to(dtype)
-                    dg = dxg[1:].view(T - 1, D_REC, G, Bg, 4 * H).permute(1, 2, 0, 3, 4).reshape(
-                        D_REC, G, (T - 1) * Bg, 4 * H).to(dtype)
+
+                    def operands(cast):
+                        hp = hs[:-1].to(cast).view(T - 1, D_REC, G, Bg, H).permute(
+                            1, 2, 4, 0, 3).reshape(D_REC, G, H, (T - 1) * Bg)
+                        dg = dxg[1:].to(cast).view(T - 1, D_REC, G, Bg, 4 * H).permute(
+                            1, 2, 0, 3, 4).reshape(D_REC, G, (T - 1) * Bg, 4 * H)
+                        return hp, dg
+
+                    hp, dg = operands(dtype)
                     t["wgrad_library_ms"] = time_ms(lambda: torch.matmul(hp, dg), 3)
                     del hp, dg
+                    if dtype == torch.bfloat16:
+                        t["wgrad_round_bmm_ms"] = time_ms(
+                            lambda: torch.matmul(*operands(dtype)), 3)
                 del xg, valid, w, dhs, ref, hs, cs, dxg, dw, args
                 if library:
                     t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(
@@ -1574,7 +1758,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     from intrepppid_tpu_torch.ops import lstm
     from intrepppid_tpu_torch.train import Trainer
 
-    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad")
+    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma")
     lstm.DEFAULT_BACKEND = "recurrence"
     try:
         rng = np.random.default_rng(SEED)
@@ -1604,6 +1788,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
             groups={"fwd": "lstm_recurrence_fwd_kernel",
                     "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
                     "sweep_cluster": "lstm_recurrence_bwd_kernel",
+                    "wgrad_mma": "lstm_recurrence_wgrad_mma_kernel",
                     "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
         if not all(np.isfinite(losses + [eval_loss])):
             raise AssertionError(
@@ -1612,12 +1797,13 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         layer = [n for n, c in launches.items() if n not in new and c != 0]
         if missing or layer:
             raise AssertionError(
-                f"the recurrence-backend steps missed {missing} or ran the cluster sweep "
-                f"or a layer kernel: {layer}")
+                f"the recurrence-backend steps missed {missing} or ran the cluster sweep, the "
+                f"CUDA-core wgrad or a layer kernel: {layer}")
         del trainer, net
         f32 = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_bwd_mma", "bilstm_bwd", "bilstm_bwd_mma"))
+                        ("lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma", "bilstm_bwd",
+                         "bilstm_bwd_mma", "bilstm_bwd_f32"))
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -1762,11 +1948,10 @@ def main() -> int:
     }
     library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
                "wgrad": t32["wgrad_library_ms"]}
-    # the CUDA-core train kernels' main path is the f32 step
+    # the CUDA-core forward and wgrad and the 3xTF32 sweep: the f32 step
     path_launches = train["float32_steps"]["launches"]
     for key, name, source, replaces in (
         ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "lstm_pallas_packed.py:256"),
-        ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "lstm_pallas_packed.py:494"),
         ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "lstm_pallas_packed.py:494"),
     ):
         kernels.append({
@@ -1784,6 +1969,51 @@ def main() -> int:
             "library_ms": library[key],
             "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64",
         })
+    # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
+    # same operands, in turns (new, old, old, new), is a yardstick there
+    f32_sweep = [c for c in tk["checks"] + tk["ragged_checks"] if c["dtype"] == "float32"]
+    kernels.append({
+        "name": "bilstm_bwd_f32",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd_f32.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:494",
+        "launches": path_launches["bilstm_bwd_f32"],
+        "max_abs_err": max(v for c in f32_sweep for n, v in c["max_abs_err"].items()
+                           if n in sweep_errs),
+        "ms": t32["bwd_ms"],
+        "plain_ms": t32["bwd_plain_ms"],
+        "bound_ms": t32["bwd_bound_ms"],
+        "bound_by": t32["bwd_bound_by"],
+        "library_ms": t32["cudnn_bwd_data_ms"],
+        "ms_again": t32["bwd_ms_again"],
+        "cuda_core_ms": t32["bwd_cuda_core_ms"],
+        "scaled_err": max(c["scaled_err"] for c in tk["checks"] if c["dtype"] == "float32"),
+        "tf32_one_pass_scaled_err": max(c["tf32_one_pass_scaled_err"] for c in tk["checks"]
+                                        if c["dtype"] == "float32"),
+        "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64; bound "
+                "at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: bilstm_bwd.cu by name on "
+                "the same operands; tf32_one_pass_scaled_err: the twin with one tf32 pass, "
+                "against the f32 tolerance 1e-4; library: cuDNN nn.LSTM backward (input) in "
+                "f32, TF32 off",
+    })
+    # bilstm_bwd.cu at its main path's shapes: the f32 model at embedding 80
+    e80 = tk["embedding_80_sweep"]
+    kernels.append({
+        "name": "bilstm_bwd",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:494",
+        "launches": train["float32_steps_embedding_80"]["launches"]["bilstm_bwd"],
+        "max_abs_err": max(e80["max_abs_err"].values()),
+        "ms": e80["ms"],
+        "plain_ms": e80["plain_ms"],
+        "bound_ms": e80["bwd_bound_ms"],
+        "bound_by": e80["bwd_bound_by"],
+        "library_ms": e80["library_ms"],
+        "work": "the one layer of the f32 model at embedding 80 (E=H=80, 5 groups, one dy "
+                "stream a direction), 400 rows, T=1500; library: cuDNN one-layer nn.LSTM "
+                "backward (input) in f32, TF32 off",
+    })
     kernels.append({
         "name": "bilstm_bwd_mma",
         "route": "cuda",
@@ -1879,9 +2109,11 @@ def main() -> int:
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
-    # the cluster sweep's main path is the f32 step, the others' the bf16 step
-    rec_launches = {**rpath["launches"], "lstm_recurrence_bwd":
-                    rpath["float32_steps"]["launches"]["lstm_recurrence_bwd"]}
+    # the cluster sweep's and the CUDA-core wgrad's main path is the f32 step,
+    # the others' the bf16 step
+    rec_launches = {**rpath["launches"], **{
+        n: rpath["float32_steps"]["launches"][n]
+        for n in ("lstm_recurrence_bwd", "lstm_recurrence_wgrad")}}
     for key, replaces in (("fwd", "lstm_pallas.py:116"), ("bwd", "lstm_pallas.py:185"),
                           ("wgrad", "lstm_pallas.py:185")):
         ops_ms = sum(t[f"{key}_flops"] for t in step) / PEAK_F32_FLOPS * 1e3
@@ -1926,7 +2158,31 @@ def main() -> int:
                 "lstm_recurrence_bwd.cu on the same operands in the same run; library: cuDNN "
                 "nn.LSTM backward (input) in bf16, with the projection's dx",
     })
-    if len(kernels) != 16 or any(k["launches"] <= 0 for k in kernels):
+    ops_ms = sum(t["wgrad_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = sum(t["wgrad_bytes"] for t in step16) / PEAK_BYTES * 1e3
+    kernels.append({
+        "name": "lstm_recurrence_wgrad_mma",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_wgrad_mma.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
+        "launches": rpath["launches"]["lstm_recurrence_wgrad_mma"],
+        "max_abs_err": max(c["max_abs_err"]["dw"] for c in rk["checks"] + rk["ragged_checks"]
+                           if c.get("wgrad", c.get("kernel")) == "lstm_recurrence_wgrad_mma"),
+        "ms": sum(t["wgrad_ms"] for t in step16),
+        "ms_again": sum(t["wgrad_ms_again"] for t in step16),
+        "plain_ms": sum(t["wgrad_plain_ms"] for t in step16),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": sum(t["wgrad_round_bmm_ms"] for t in step16),
+        "bmm_ms": sum(t["wgrad_library_ms"] for t in step16),
+        "cuda_core_ms": sum(t["wgrad_cuda_core_ms"] for t in step16),
+        "work": "both layers of one recurrence-backend step (5 weight groups + 1), bf16 "
+                "compute dtype, D=2, 400 rows, T=1500, H=64; cuda_core_ms: "
+                "lstm_recurrence_wgrad.cu on the same operands in the same run (new, old, old, "
+                "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
+                "one batched cuBLAS product; bmm_ms: that product alone",
+    })
+    if len(kernels) != 18 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

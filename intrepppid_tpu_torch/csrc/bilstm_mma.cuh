@@ -1,8 +1,10 @@
-// Tensor-core building blocks shared by the bf16 backward sweeps
-// (bilstm_bwd_mma.cu, lstm_recurrence_bwd_mma.cu): warp-level
-// mma.sync m16n8k16 (bf16 operands, f32 accumulators), ldmatrix fragment
-// loads from shared memory, cp.async tile copies, the gate-row permutation,
-// and the cell's transcendentals.
+// Tensor-core building blocks shared by the tensor-core kernels
+// (bilstm_bwd_mma.cu, lstm_recurrence_bwd_mma.cu, bilstm_fwd_mma.cu,
+// bilstm_wgrad_mma.cu, lstm_recurrence_wgrad_mma.cu, bilstm_bwd_f32.cu):
+// warp-level mma.sync m16n8k16 (bf16 operands, f32 accumulators) and
+// m16n8k8 (tf32 operands, for the three-pass f32 products), ldmatrix
+// fragment loads from shared memory, cp.async tile copies, the gate-row
+// permutation, and the cell's transcendentals.
 //
 // Why mma.sync and not wgmma: a sweep step is a chain of small products
 // (N = 8 rows, K <= 256) bound by latency, not by tensor-core rate; mma.sync
@@ -64,6 +66,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c (16x8 f32) += a (16x8 tf32, row-major fragment) . b (8x8 tf32, "col").
+// Fragments: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k t, column g), b1 (t + 4, g); the accumulator as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 value as the sum of two tf32 operands: `big`, x cut to tf32's 10
+// mantissa bits, and `small` = x - big, exact in f32, of which the tensor
+// core reads the top 10 mantissa bits. big.big + big.small + small.big
+// then carries about 20 bits: the f32 product to ~2e-6 relative, where one
+// tf32 pass keeps ~1e-3. The cut is a mask (one integer operation), not
+// cvt.rna.tf32.f32, which runs on the slower conversion unit and paced the
+// f32 sweep when every weight was split with it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
 // Rounds i = 0 .. n-1 of load(frag, i) then use(frag, i), software-pipelined
 // over two fragment buffers: round i + 1's ldmatrix loads are started before
 // round i's mma, so a round costs its mma time and not a shared-memory
@@ -117,7 +143,8 @@ __host__ __device__ inline int permuted_of_gate_row(int j, int H) {
 
 // The cell's transcendentals from the hardware's ex2 and reciprocal
 // approximations (a few ulp: absolute error ~3e-7, far below the bf16
-// rounding of the operands they are computed from): four or five
+// rounding of the operands they are computed from, and in the f32 sweep
+// more than two orders of magnitude below its 1e-4 agreement): four or five
 // operations each on the serial chain, where expf and tanhf proper take
 // several times as many. ex2 overflows to inf and the reciprocal of inf is
 // 0, so both saturate correctly.

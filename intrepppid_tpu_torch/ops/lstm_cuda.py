@@ -20,11 +20,13 @@ packed, fused or lite kernels:
     cores). Plain twin of both: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
-    Two kernels do it, picked by shape and dtype (``sweep_kernel``):
+    Three kernels do it, picked by shape and dtype (``sweep_kernel``):
     ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64:
-    the products on the tensor cores), and ``bilstm_bwd`` itself launches
-    ``csrc/bilstm_bwd.cu`` for the rest (f32, CUDA cores). Plain twin of
-    both: ``ops/lstm.py:bidir_layer_sweep``.
+    the products on the tensor cores), ``bilstm_bwd_f32`` launches
+    ``csrc/bilstm_bwd_f32.cu`` (f32, H <= 64: three tf32 passes a product on
+    the tensor cores), and ``bilstm_bwd`` itself launches
+    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores). Plain twin of all
+    three: ``ops/lstm.py:bidir_layer_sweep``.
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
 
@@ -50,8 +52,9 @@ packed, fused or lite kernels:
 
 Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
-``intrepppid_tpu/ops/lstm_pallas.py``) has three kernels of its own, on the
-wide route's cluster design at every width they take:
+``intrepppid_tpu/ops/lstm_pallas.py``) has kernels of its own: three on the
+wide route's cluster design at every width they take, and two tensor-core
+ones:
 
 * ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
   (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
@@ -62,11 +65,15 @@ wide route's cluster design at every width they take:
   row tile, tensor cores), ``lstm_recurrence_bwd`` itself launches the
   cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest. Plain twin
   of both: ``recurrence_sweep``.
-* ``lstm_recurrence_wgrad`` launches ``csrc/lstm_recurrence_wgrad.cu``, that
-  kernel's ``dW`` sums. Plain twin: ``recurrence_wgrad``.
+* ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
+  kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
+  launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
+  the tensor cores), ``lstm_recurrence_wgrad`` itself launches
+  ``csrc/lstm_recurrence_wgrad.cu`` (f32, CUDA cores). Plain twin of both:
+  ``recurrence_wgrad``.
 
-These three refuse operands that require grad under grad mode for CPU
-tensors too: only ``FusedLSTMRecurrence`` calls them.
+These refuse operands that require grad under grad mode for CPU tensors
+too: only ``FusedLSTMRecurrence`` calls them.
 
 ``layer_fwd`` and ``layer_bwd`` run one layer on its route. Each source's
 header says what bounds it on the card and how it is laid out. For a CPU
@@ -78,8 +85,8 @@ each group with length-0 rows and slice them off (the JAX package does the
 same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
-hands to ``bilstm_bwd_mma`` counts there, and so do the forwards and
-``bilstm_wgrad``.
+hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
+the forwards, ``bilstm_wgrad`` and ``lstm_recurrence_wgrad``.
 """
 from __future__ import annotations
 
@@ -116,8 +123,10 @@ SMEM_LIMIT = 232448
 # bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
 # (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu and
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
+# lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
-# kMaxThreads, kMaxH, kPad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
+# kMaxThreads, kMaxH, kPad), bilstm_bwd_f32.cu (kMmaTile, kMaxChunks,
+# kMaxThreads, kMaxH, kStrideAlign, kStridePad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
@@ -130,6 +139,9 @@ WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD = 8, 256, 4
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
 BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS = 3, 384
 REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
+# the f32 tensor-core sweep: [x ; h] chunks a thread copies per step, and
+# its weight / tile row stride K rounded up to 32 floats plus 8
+BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
 # the tensor-core forward: its (H, E) instances (the model's layers at the
 # resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96), x
 # chunks a thread copies per step
@@ -139,6 +151,13 @@ FWD_MMA_MAX_CHUNKS = 2
 # K-tile, cp.async stages, and its dynamic shared memory
 WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K, WGRAD_MMA_STAGES = 128, 128, 32, 4
 WGRAD_MMA_SMEM = 2 * WGRAD_MMA_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + MMA_PAD) * 2
+# the recurrence op's tensor-core wgrad: block tile (h columns x gate
+# columns), rows per K-tile, its two shared stages (bytes), and the blocks
+# its split aims for: one wave of the 132 SMs at two blocks each
+REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N, REC_WGRAD_MMA_TILE_K = 64, 128, 64
+REC_WGRAD_MMA_SMEM = 2 * REC_WGRAD_MMA_TILE_K * (
+    REC_WGRAD_MMA_TILE_M + MMA_PAD + REC_WGRAD_MMA_TILE_N + MMA_PAD) * 2
+REC_WGRAD_MMA_TARGET_BLOCKS = 2 * 132
 # rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
 WIDE_ROWS = (2, 4, 7, 10)
 _WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
@@ -152,6 +171,8 @@ _SIGNATURES = {
                    + [_I] * 6 + [_P]),
     "bilstm_bwd_mma": ("bilstm_bwd_mma", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                        + [_I] * 7 + [_P]),
+    "bilstm_bwd_f32": ("bilstm_bwd_f32", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
+                       + [_I] * 7 + [_P]),
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
@@ -163,6 +184,7 @@ _SIGNATURES = {
     "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
+    "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -175,6 +197,11 @@ _CONSTANTS = {
                         "bilstm_bwd_mma_max_h", "bilstm_bwd_mma_pad"),
                        (MMA_TILE, MMA_STAGES, BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS,
                         MMA_MAX_H, MMA_PAD)),
+    "bilstm_bwd_f32": (("bilstm_bwd_f32_tile", "bilstm_bwd_f32_max_chunks",
+                        "bilstm_bwd_f32_max_threads", "bilstm_bwd_f32_max_h",
+                        "bilstm_bwd_f32_stride_align", "bilstm_bwd_f32_stride_pad"),
+                       (MMA_TILE, BWD_F32_MAX_CHUNKS, BWD_MMA_MAX_THREADS, MMA_MAX_H,
+                        BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
     "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
                         "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
@@ -208,6 +235,12 @@ _CONSTANTS = {
                                 (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
                                  REC_MMA_F32_PAD)),
     "lstm_recurrence_wgrad": (("lstm_recurrence_wgrad_tile",), (WGRAD_TILE,)),
+    "lstm_recurrence_wgrad_mma": (("lstm_recurrence_wgrad_mma_tile_m",
+                                   "lstm_recurrence_wgrad_mma_tile_n",
+                                   "lstm_recurrence_wgrad_mma_tile_k",
+                                   "lstm_recurrence_wgrad_mma_smem"),
+                                  (REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N,
+                                   REC_WGRAD_MMA_TILE_K, REC_WGRAD_MMA_SMEM)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -353,12 +386,41 @@ def bwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
     return threads, smem
 
 
+def bwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the f32 tensor-core sweep
+    (``csrc/bilstm_bwd_f32.cu``), or ValueError for a dtype or shape it does
+    not take. It takes float32 with H in {16, 32, 48, 64} and 1 or 2 input
+    parts that are multiples of 8 wide, where the f32 weights fit one block
+    beside its tiles: one warp per 8 hidden units and one per 16 dx columns
+    past the first H, as ``bwd_mma_plan``; shared memory for the weights
+    (4H rows), one dgates tile and two [x ; h] stages (8 rows each)."""
+    E = sum(E_parts)
+    if (dtype != torch.float32 or H % 16 or not 16 <= H <= MMA_MAX_H
+            or len(E_parts) not in (1, 2) or any(e <= 0 or e % 8 for e in E_parts)):
+        raise ValueError(
+            f"bilstm_bwd_f32 kernel takes float32 with H in {{16, 32, 48, {MMA_MAX_H}}} and 1 or "
+            f"2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
+            f"E_parts={list(E_parts)}")
+    threads = 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2))
+    ks = -(-(E + H) // BWD_F32_STRIDE_ALIGN) * BWD_F32_STRIDE_ALIGN + BWD_F32_STRIDE_PAD
+    smem = (4 * H * ks + MMA_TILE * (4 * H + 4) + 2 * MMA_TILE * ks) * 4
+    if (threads > BWD_MMA_MAX_THREADS or 2 * (E + H) > BWD_F32_MAX_CHUNKS * threads
+            or smem > SMEM_LIMIT):
+        raise ValueError(
+            f"bilstm_bwd_f32 kernel: E={E}, H={H} needs {threads} threads (at most "
+            f"{BWD_MMA_MAX_THREADS}) and {smem} bytes of shared memory (at most {SMEM_LIMIT})")
+    return threads, smem
+
+
 def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's sweep takes for a layer, by shape and
     dtype alone: ``"bilstm_bwd_mma"`` where ``bwd_mma_plan`` fits (bf16,
-    H <= 64), else ``"bilstm_bwd"`` where ``bwd_launch_plan`` fits (f32, and
-    the bf16 shapes the tensor-core sweep does not take); ValueError naming
-    both refusals otherwise."""
+    H <= 64); else, where ``bwd_launch_plan`` fits, ``"bilstm_bwd_f32"`` if
+    ``bwd_f32_plan`` fits too (f32, H <= 64) and ``"bilstm_bwd"`` for the
+    rest (the bf16 shapes the tensor-core sweep does not take, f32 past
+    H = 64); ValueError naming both refusals otherwise. ``bwd_launch_plan``
+    alone decides which shapes the resident route takes, as before the f32
+    kernel came, so no layer changes route."""
     try:
         bwd_mma_plan(E_parts, H, dtype)
         return "bilstm_bwd_mma"
@@ -367,7 +429,11 @@ def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
             bwd_launch_plan(E_parts, H, dtype)
         except ValueError as cores:
             raise ValueError(f"{cores}; {mma}") from None
-    return "bilstm_bwd"
+    try:
+        bwd_f32_plan(E_parts, H, dtype)
+    except ValueError:
+        return "bilstm_bwd"
+    return "bilstm_bwd_f32"
 
 
 def mma_tiles(B: int, G: int) -> int:
@@ -894,10 +960,11 @@ def bilstm_bwd(
     ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
 
     On the card the sweep runs the kernel ``sweep_kernel`` names for its
-    shapes and dtype: the tensor-core one through :func:`bilstm_bwd_mma`
-    (whose ``.launches`` then counts it), or ``csrc/bilstm_bwd.cu`` here.
-    ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
-    the other); a shape it does not take raises."""
+    shapes and dtype: a tensor-core one through :func:`bilstm_bwd_mma`
+    (bf16) or :func:`bilstm_bwd_f32` (f32), whose ``.launches`` then counts
+    it, or ``csrc/bilstm_bwd.cu`` here. ``kernel="bilstm_bwd"`` asks for the
+    latter by name (to time it beside the others); a shape it does not take
+    raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -906,11 +973,13 @@ def bilstm_bwd(
     dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
         "bilstm_bwd", x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
         dyf, dyb, dhn, dcn, cd)
-    if kernel not in (None, "bilstm_bwd", "bilstm_bwd_mma"):
+    if kernel not in (None, "bilstm_bwd", "bilstm_bwd_mma", "bilstm_bwd_f32"):
         raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
-    if (kernel or sweep_kernel(E_parts, H, cd)) == "bilstm_bwd_mma":
-        return bilstm_bwd_mma(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                              dyf, dyb, dhn, dcn, cd)
+    kernel = kernel or sweep_kernel(E_parts, H, cd)
+    if kernel != "bilstm_bwd":
+        sweep = bilstm_bwd_mma if kernel == "bilstm_bwd_mma" else bilstm_bwd_f32
+        return sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                     dyf, dyb, dhn, dcn, cd)
 
     threads, rows, smem = bwd_launch_plan(E_parts, H, cd)
     pad = _tile_pad(B, G, rows)
@@ -957,6 +1026,48 @@ def bilstm_bwd(
 bilstm_bwd.launches = 0
 
 
+def _tile_sweep(wrapper, plan, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                dyf, dyb, dhn, dcn, compute_dtype):
+    """The tensor-core sweeps' common body: ``wrapper`` names the kernel
+    (``csrc/<name>.cu``, whose C entry takes the operands of
+    ``bilstm_bwd_mma.cu``) and counts its launches; ``plan(E_parts, H,
+    dtype, ny)`` gives ``(threads, smem_bytes)`` or raises. Row tiles are
+    cut inside each weight group, so nothing is padded. The outputs carry
+    no graph, so under grad mode it refuses an operand that requires grad,
+    on the CPU too."""
+    x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                 dyf, dyb, dhn, dcn, compute_dtype)
+    cd, name = compute_dtype, wrapper.__name__
+    dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
+        name, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+    threads, smem = plan(E_parts, H, cd, len(dyf))
+    dxf = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
+    dxb = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
+    dgc = torch.empty((2, T, B, 4 * H), dtype=cd, device=dev)
+    tiles = mma_tiles(B, G)
+    dbias_part = torch.zeros((tiles, 2, 4 * H), dtype=torch.float32, device=dev)
+    if B * T > 0:
+        with torch.cuda.device(dev):
+            err = getattr(_kernels(name), name)(
+                _ptr(x_parts, 0), _ptr(x_parts, 1),
+                E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+                lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
+                hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+                _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
+                None if dhn is None else dhn.data_ptr(),
+                None if dcn is None else dcn.data_ptr(),
+                _ptr(dxf, 0), _ptr(dxf, 1), _ptr(dxb, 0), _ptr(dxb, 1),
+                dgc.data_ptr(), dbias_part.data_ptr(),
+                T, B, H, G, tiles, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on_error(name, err)
+        wrapper.launches += 1
+    return dxf, dxb, dgc, dbias_part.sum(dim=0)
+
+
 def bilstm_bwd_mma(
     x_parts: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -981,41 +1092,40 @@ def bilstm_bwd_mma(
     padded. Its outputs carry no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too: ``BiLSTMStack`` is the way
     in."""
-    x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
-    _no_graph(*x_parts, w_ih, w_hh, bias)
-    if not x_parts[0].is_cuda:
-        return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                                 dyf, dyb, dhn, dcn, compute_dtype)
-    cd = compute_dtype
-    dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
-        "bilstm_bwd_mma", x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-        dyf, dyb, dhn, dcn, cd)
-    threads, smem = bwd_mma_plan(E_parts, H, cd, len(dyf))
-    dxf = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
-    dxb = tuple(torch.empty((T, B, e), dtype=cd, device=dev) for e in E_parts)
-    dgc = torch.empty((2, T, B, 4 * H), dtype=cd, device=dev)
-    tiles = mma_tiles(B, G)
-    dbias_part = torch.zeros((tiles, 2, 4 * H), dtype=torch.float32, device=dev)
-    if B * T > 0:
-        with torch.cuda.device(dev):
-            err = _kernels("bilstm_bwd_mma").bilstm_bwd_mma(
-                _ptr(x_parts, 0), _ptr(x_parts, 1),
-                E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
-                lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
-                hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
-                _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
-                None if dhn is None else dhn.data_ptr(),
-                None if dcn is None else dcn.data_ptr(),
-                _ptr(dxf, 0), _ptr(dxf, 1), _ptr(dxb, 0), _ptr(dxb, 1),
-                dgc.data_ptr(), dbias_part.data_ptr(),
-                T, B, H, G, tiles, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _raise_on_error("bilstm_bwd_mma", err)
-        bilstm_bwd_mma.launches += 1
-    return dxf, dxb, dgc, dbias_part.sum(dim=0)
+    return _tile_sweep(bilstm_bwd_mma, bwd_mma_plan, x_parts, lengths, w_ih, w_hh, bias,
+                       hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
 
 
 bilstm_bwd_mma.launches = 0
+
+
+def bilstm_bwd_f32(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+):
+    """One layer's backward sweep in f32 on the tensor cores, three tf32
+    passes a product (``csrc/bilstm_bwd_f32.cu``); the contract of
+    ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
+    Takes the shapes ``bwd_f32_plan`` takes (float32, H <= 64) and raises
+    for the rest, as ``bilstm_bwd_mma`` does for its own."""
+    return _tile_sweep(bilstm_bwd_f32, lambda E_parts, H, cd, ny: bwd_f32_plan(E_parts, H, cd),
+                       x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                       dhn, dcn, compute_dtype)
+
+
+bilstm_bwd_f32.launches = 0
 
 
 def bilstm_wgrad(
@@ -1552,34 +1662,89 @@ def lstm_recurrence_bwd_mma(
 lstm_recurrence_bwd_mma.launches = 0
 
 
-def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,
-                          compute_dtype: torch.dtype) -> torch.Tensor:
-    """The recurrence's weight gradient; the contract of
-    ``ops/lstm_recurrence.py:recurrence_wgrad``: ``dw (D, G, H, 4H)`` f32
-    from ``hs (T, D, B, H)`` and ``dxg (T, D, B, 4H)``, both f32, rounded
-    to ``compute_dtype`` as they are read."""
-    _no_graph(hs, dxg)
-    if not hs.is_cuda:
-        return recurrence_wgrad(hs, dxg, G, compute_dtype)
-    cd = compute_dtype
+def recurrence_wgrad_kernel(H: int, compute_dtype: torch.dtype) -> str:
+    """The kernel the recurrence op's weight gradient takes, by width and
+    compute dtype alone: ``"lstm_recurrence_wgrad_mma"`` for bfloat16 (the
+    tensor cores), ``"lstm_recurrence_wgrad"`` for float32 (CUDA cores);
+    ValueError for what neither takes (``recurrence_check``)."""
+    recurrence_check(H, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        return "lstm_recurrence_wgrad_mma"
+    return "lstm_recurrence_wgrad"
+
+
+def recurrence_wgrad_mma_plan(T: int, B: int, D: int, G: int, H: int) -> Tuple[int, int, int]:
+    """``(m_tiles, n_tiles, splits)`` of the tensor-core recurrence wgrad:
+    64-column tiles of the H h columns (the last one partly zero where
+    H % 64 == 32), 128-column tiles of the 4H gates, and the split of each
+    group's ``(T - 1) * B / G`` rows that brings the grid to at most
+    ``REC_WGRAD_MMA_TARGET_BLOCKS`` blocks (one wave), at least one split
+    and no more splits than K-tiles."""
+    m_tiles = -(-H // REC_WGRAD_MMA_TILE_M)
+    n_tiles = 4 * H // REC_WGRAD_MMA_TILE_N
+    rows = max(0, T - 1) * (B // G)
+    per_split = m_tiles * n_tiles * D * G
+    splits = max(1, min(-(-rows // REC_WGRAD_MMA_TILE_K),
+                        REC_WGRAD_MMA_TARGET_BLOCKS // per_split))
+    return m_tiles, n_tiles, splits
+
+
+def recurrence_wgrad_mma_rows(T: int, B: int, G: int, splits: int, split: int, g: int):
+    """The rows the tensor-core recurrence wgrad's blocks of ``split`` read
+    for weight group ``g``, as ``(s, b, s_prev)``: the dxg row at step s and
+    the hs row at ``s_prev = s - 1`` (step 0 has no h_prev and is no row);
+    the same integer arithmetic as ``csrc/lstm_recurrence_wgrad_mma.cu``."""
+    Bg = B // G
+    rows = max(0, T - 1) * Bg
+    out = []
+    for n in range(rows * split // splits, rows * (split + 1) // splits):
+        s = 1 + n // Bg
+        out.append((s, g * Bg + n - (s - 1) * Bg, s - 1))
+    return out
+
+
+def _recurrence_wgrad_operands(hs, dxg, G, cd, what):
+    """Checked operands of a recurrence wgrad kernel: ``(dev, T, D, B, H)``."""
     dev = hs.device
     if hs.dim() != 4:
-        raise ValueError(f"lstm_recurrence_wgrad kernel: hs must be (T, D, B, H), "
-                         f"got {tuple(hs.shape)}")
+        raise ValueError(f"{what} kernel: hs must be (T, D, B, H), got {tuple(hs.shape)}")
     T, D, B, H = hs.shape
     recurrence_check(H, cd)
     _check("hs", hs, (T, D, B, H), torch.float32, dev)
     _check("dxg", dxg, (T, D, B, 4 * H), torch.float32, dev)
     if B % G:
-        raise ValueError(f"lstm_recurrence_wgrad kernel: batch {B} is not a multiple of "
-                         f"{G} weight groups")
+        raise ValueError(f"{what} kernel: batch {B} is not a multiple of {G} weight groups")
+    return dev, T, D, B, H
+
+
+def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,
+                          compute_dtype: torch.dtype, kernel: Optional[str] = None) -> torch.Tensor:
+    """The recurrence's weight gradient; the contract of
+    ``ops/lstm_recurrence.py:recurrence_wgrad``: ``dw (D, G, H, 4H)`` f32
+    from ``hs (T, D, B, H)`` and ``dxg (T, D, B, 4H)``, both f32, rounded
+    to ``compute_dtype`` as they are read.
+
+    On the card it runs the kernel ``recurrence_wgrad_kernel`` names for the
+    width and dtype: the tensor-core one through
+    :func:`lstm_recurrence_wgrad_mma` (whose ``.launches`` then counts it),
+    or ``csrc/lstm_recurrence_wgrad.cu`` here. ``kernel="lstm_recurrence_wgrad"``
+    asks for the latter by name (to time it beside the other)."""
+    _no_graph(hs, dxg)
+    if not hs.is_cuda:
+        return recurrence_wgrad(hs, dxg, G, compute_dtype)
+    cd = compute_dtype
+    name = "lstm_recurrence_wgrad"
+    if kernel not in (None, name, "lstm_recurrence_wgrad_mma"):
+        raise ValueError(f"lstm_recurrence_wgrad: no weight-gradient kernel named {kernel!r}")
+    dev, T, D, B, H = _recurrence_wgrad_operands(hs, dxg, G, cd, name)
+    if (kernel or recurrence_wgrad_kernel(H, cd)) == "lstm_recurrence_wgrad_mma":
+        return lstm_recurrence_wgrad_mma(hs, dxg, G, cd)
     tiles_y = (4 * H // WGRAD_TILE) * -(-H // WGRAD_TILE)
     splits = max(1, min(T, math.ceil(WGRAD_TARGET_BLOCKS / (tiles_y * D * G))))
     partial = torch.empty((splits, D, G, H, 4 * H), dtype=torch.float32, device=dev)
     if B * D == 0 or T <= 1:
         partial.zero_()
     else:
-        name = "lstm_recurrence_wgrad"
         with torch.cuda.device(dev):
             err = _kernels(name).lstm_recurrence_wgrad(
                 _DTYPE_CODES[cd], hs.data_ptr(), dxg.data_ptr(), partial.data_ptr(),
@@ -1591,3 +1756,39 @@ def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,
 
 
 lstm_recurrence_wgrad.launches = 0
+
+
+def lstm_recurrence_wgrad_mma(hs: torch.Tensor, dxg: torch.Tensor, G: int,
+                              compute_dtype: torch.dtype) -> torch.Tensor:
+    """The recurrence's weight gradient on the tensor cores
+    (``csrc/lstm_recurrence_wgrad_mma.cu``: a split-K GEMM that rounds the
+    f32 streams to bf16 as it stages them); the contract of
+    :func:`lstm_recurrence_wgrad`. Takes compute dtype bfloat16 at every
+    width the op takes and raises for the rest. Every block writes its
+    partial tile, empty row ranges included; with no row (``T <= 1`` or an
+    empty batch) it returns zeros without a launch. Its output carries no
+    graph, so under grad mode it refuses an operand that requires grad, on
+    the CPU too."""
+    _no_graph(hs, dxg)
+    if not hs.is_cuda:
+        return recurrence_wgrad(hs, dxg, G, compute_dtype)
+    cd = compute_dtype
+    name = "lstm_recurrence_wgrad_mma"
+    dev, T, D, B, H = _recurrence_wgrad_operands(hs, dxg, G, cd, name)
+    if recurrence_wgrad_kernel(H, cd) != name:
+        raise ValueError(f"{name} kernel takes compute dtype bfloat16, got {cd}")
+    if B * D == 0 or T <= 1:
+        return torch.zeros((D, G, H, 4 * H), dtype=torch.float32, device=dev)
+    _, _, splits = recurrence_wgrad_mma_plan(T, B, D, G, H)
+    partial = torch.empty((splits, D, G, H, 4 * H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_wgrad_mma(
+            hs.data_ptr(), dxg.data_ptr(), partial.data_ptr(), D, T, B, H, G, splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_wgrad_mma.launches += 1
+    return partial.sum(dim=0)
+
+
+lstm_recurrence_wgrad_mma.launches = 0

@@ -46,7 +46,8 @@ def test_every_kernel_source_is_built_and_bound():
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
                        "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
-                       "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma"}
+                       "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
+                       "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -59,11 +60,16 @@ def test_every_kernel_source_is_built_and_bound():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert len(getters) == len(want)
         assert all(f"int {g}()" in text for g in getters), name
-    for name in ("bilstm_bwd_mma", "lstm_recurrence_bwd_mma", "bilstm_fwd_mma",
-                 "bilstm_wgrad_mma"):
+    for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
+                      ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
+                      ("lstm_recurrence_wgrad_mma", "mma_bf16("),
+                      ("bilstm_bwd_f32", "mma_tf32(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
-        assert '#include "bilstm_mma.cuh"' in text and "mma_bf16(" in text
+        assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
+    # the f32 sweep takes three tf32 passes a product, never one
+    text = (_build.CSRC / "bilstm_bwd_f32.cu").read_text().rsplit("#include", 1)[1]
+    assert text.count("mma_tf32(") == 6 and text.count("split_tf32(") == 12
 
 
 def test_default_device_is_the_card(monkeypatch):

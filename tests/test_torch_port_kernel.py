@@ -398,8 +398,10 @@ def test_recurrence_check(H, dtype, ok):
         ([64, 64], 64, torch.bfloat16, "bilstm_bwd_mma"),
         ([32, 32], 32, torch.bfloat16, "bilstm_bwd_mma"),
         ([32], 32, torch.bfloat16, "bilstm_bwd_mma"),
-        ([64], 64, torch.float32, "bilstm_bwd"),       # f32 keeps the CUDA-core sweep
-        ([64, 64], 64, torch.float32, "bilstm_bwd"),
+        ([64], 64, torch.float32, "bilstm_bwd_f32"),   # f32: three tf32 passes
+        ([64, 64], 64, torch.float32, "bilstm_bwd_f32"),
+        ([32, 32], 32, torch.float32, "bilstm_bwd_f32"),
+        ([40], 80, torch.float32, "bilstm_bwd"),       # H > 64: the CUDA-core sweep
         ([32], 64, torch.bfloat16, "bilstm_bwd_mma"),  # (E + H) % 32 == 0
         ([128], 64, torch.bfloat16, "bilstm_bwd_mma"),
         ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
@@ -670,6 +672,150 @@ def test_forward_and_wgrad_mma_wrappers_take_plain_versions_on_cpu():
         lstm_cuda.bilstm_wgrad_mma(dgc.clone().requires_grad_(), parts, hs_f, hs_b, 2)
 
 
+# --------------- the f32 tensor-core sweep and the recurrence wgrad (bf16)
+def _resident_before_f32(E_parts, H, dtype):
+    """``layer_route``'s answer as it was before the f32 tensor-core sweep:
+    resident where a forward and either older sweep plan fit."""
+    try:
+        lstm_cuda.fwd_kernel(E_parts, H, dtype)
+    except ValueError:
+        return False
+    for plan in (lstm_cuda.bwd_mma_plan, lstm_cuda.bwd_launch_plan):
+        try:
+            plan(E_parts, H, dtype)
+            return True
+        except ValueError:
+            pass
+    return False
+
+
+def test_f32_sweep_changes_no_route():
+    """``sweep_kernel`` hands f32 layers to ``bilstm_bwd_f32`` only where
+    ``bwd_launch_plan`` takes them too, so every (E_parts, H, dtype) keeps
+    the route it had; the new kernel takes each model shape in f32."""
+    for H in range(8, 272, 8):
+        for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
+                        [32, 32], [64, 64], [128, 128], [256, 256]):
+            for dtype in (torch.float32, torch.bfloat16):
+                try:
+                    route = lstm_cuda.layer_route(E_parts, H, dtype)
+                except ValueError:
+                    route = None
+                resident = _resident_before_f32(E_parts, H, dtype)
+                assert (route == "resident") == resident, (E_parts, H, dtype)
+                if resident and dtype == torch.float32 and H <= 64 and H % 16 == 0:
+                    assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_f32"
+
+
+@pytest.mark.parametrize("E_parts,H,threads,smem", [
+    ([64], 64, 256, 156288), ([64, 64], 64, 384, 225920), ([32], 32, 128, 45696),
+    ([32, 32], 32, 192, 64128), ([16], 16, 64, 14976)])
+def test_bwd_f32_plan(E_parts, H, threads, smem):
+    """One warp per 8 hidden units and one per 16 dx columns past the first
+    H; shared memory for the f32 weights (4H rows of E + H, stride rounded
+    to 32 floats plus 8), one dgates tile and two [x ; h] stages; the
+    manuscript's layer 1 fits a block by a few KB."""
+    assert lstm_cuda.bwd_f32_plan(E_parts, H, torch.float32) == (threads, smem)
+    assert smem <= lstm_cuda.SMEM_LIMIT and threads <= lstm_cuda.BWD_MMA_MAX_THREADS
+    assert 2 * (sum(E_parts) + H) <= lstm_cuda.BWD_F32_MAX_CHUNKS * threads
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
+        lstm_cuda.bwd_f32_plan(E_parts, H, torch.bfloat16)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
+        lstm_cuda.bwd_f32_plan([40], 80, torch.float32)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel: E=192"):
+        lstm_cuda.bwd_f32_plan([96, 96], 64, torch.float32)
+
+
+@pytest.mark.parametrize("H,dtype,kernel", [
+    *((H, torch.bfloat16, "lstm_recurrence_wgrad_mma") for H in (32, 64, 96, 256)),
+    (64, torch.float32, "lstm_recurrence_wgrad"), (256, torch.float32, "lstm_recurrence_wgrad"),
+    (48, torch.bfloat16, None), (64, torch.float16, None)])
+def test_recurrence_wgrad_kernel_by_width_and_dtype(H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="H % 32 == 0"):
+            lstm_cuda.recurrence_wgrad_kernel(H, dtype)
+        return
+    assert lstm_cuda.recurrence_wgrad_kernel(H, dtype) == kernel
+
+
+@pytest.mark.parametrize("T,B,D,G,H,want", [
+    (1500, 400, 2, 5, 64, (1, 2, 13)), (1500, 400, 2, 1, 64, (1, 2, 66)),
+    (300, 400, 2, 5, 32, (1, 1, 26)), (1500, 400, 2, 5, 256, (4, 8, 1)),
+    (3, 400, 1, 1, 64, (1, 2, 13)), (2, 27, 3, 3, 96, (2, 3, 1)), (1, 27, 2, 3, 64, (1, 2, 1))])
+def test_recurrence_wgrad_mma_plan(T, B, D, G, H, want):
+    """64-column tiles of the h columns, 128-column tiles of the gates, and
+    splits that keep the grid within one wave of two blocks an SM, with at
+    least one 64-row K-tile each (more splits than positions at T = 3)."""
+    m_tiles, n_tiles, splits = lstm_cuda.recurrence_wgrad_mma_plan(T, B, D, G, H)
+    assert (m_tiles, n_tiles, splits) == want
+    tile_m = lstm_cuda.REC_WGRAD_MMA_TILE_M
+    assert (m_tiles - 1) * tile_m < H <= m_tiles * tile_m
+    assert n_tiles * lstm_cuda.REC_WGRAD_MMA_TILE_N == 4 * H
+    blocks = m_tiles * n_tiles * D * G * splits
+    assert splits == 1 or blocks <= lstm_cuda.REC_WGRAD_MMA_TARGET_BLOCKS
+    assert splits <= max(1, -(-(T - 1) * (B // G) // lstm_cuda.REC_WGRAD_MMA_TILE_K))
+    assert lstm_cuda.REC_WGRAD_MMA_SMEM <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
+
+
+@pytest.mark.parametrize("T,B,G", [(5, 40, 5), (3, 400, 1), (2, 27, 3), (7, 12, 1), (1, 6, 2)])
+def test_recurrence_wgrad_mma_rows_cover_each_row_once(T, B, G):
+    """The K-tiling as a host-side plan: over a launch's splits, each
+    (s, b) row of a weight group with s >= 1 is read exactly once, with its
+    h_prev at s - 1; step 0, whose h_prev is zero, is no row."""
+    splits = lstm_cuda.recurrence_wgrad_mma_plan(T, B, 1, G, 64)[2]
+    Bg = B // G
+    for g in range(G):
+        rows = [r for split in range(splits)
+                for r in lstm_cuda.recurrence_wgrad_mma_rows(T, B, G, splits, split, g)]
+        assert sorted((s, b) for s, b, _ in rows) == [
+            (s, b) for s in range(1, T) for b in range(g * Bg, (g + 1) * Bg)]
+        assert all(sp == s - 1 for s, _, sp in rows)
+    assert lstm_cuda.recurrence_wgrad_mma_plan(3, 400, 1, 1, 64)[2] > 3
+
+
+def test_f32_sweep_and_recurrence_wgrad_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 6, [16, 16], 16, 2, torch.float32, torch.device("cpu"))
+    cd = torch.float32
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_f32, lstm_cuda.lstm_recurrence_wgrad,
+                lstm_cuda.lstm_recurrence_wgrad_mma)
+    before = [f.launches for f in wrappers]
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], None, dcn,
+            cd)
+    ref = bidir_layer_sweep(*args)
+    for got in (lstm_cuda.bilstm_bwd_f32(*args), lstm_cuda.bilstm_bwd(*args),
+                lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd_f32")):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got[0] + got[1] + got[2:], ref[0] + ref[1] + ref[2:]))
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_f32(parts, lengths, w_ih.clone().requires_grad_(), *args[3:])
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_f32(parts, lengths, w_ih, w_hh, bias.clone().requires_grad_(),
+                                 *args[5:])
+    with torch.no_grad():
+        lstm_cuda.bilstm_bwd_f32(parts, lengths, w_ih.clone().requires_grad_(), *args[3:])
+
+    for dtype in (torch.bfloat16, torch.float32):
+        xg, valid, w, dhs, dhn, dcn = recurrence_case(5, 3, 6, 32, 2, dtype, torch.device("cpu"),
+                                                      "holes")
+        hs, cs, _, _ = recurrence_fwd(xg, valid, w, 2, dtype)
+        dxg = recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, dtype)
+        dw = recurrence_wgrad(hs, dxg, 2, dtype)
+        assert torch.equal(lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg, 2, dtype), dw)
+        assert torch.equal(lstm_cuda.lstm_recurrence_wgrad(hs, dxg, 2, dtype), dw)
+        assert torch.equal(lstm_cuda.lstm_recurrence_wgrad(
+            hs, dxg, 2, dtype, kernel="lstm_recurrence_wgrad"), dw)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_wgrad_mma(hs.clone().requires_grad_(), dxg, 2, dtype)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg.clone().requires_grad_(), 2, dtype)
+    with torch.no_grad():
+        lstm_cuda.lstm_recurrence_wgrad_mma(hs.clone().requires_grad_(), dxg, 2, dtype)
+    assert [f.launches for f in wrappers] == before
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -681,13 +827,15 @@ def cuda_device():
 @pytest.mark.cuda
 def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
     """The card twin of the regression test: the same gradients as the
-    CPU's plain path, through the train forward, sweep and wgrad kernels."""
+    CPU's plain path, through the train forward, sweep and wgrad kernels
+    (the sweep counted on the wrapper of the kernel the dispatch names)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = (lstm_cuda.bilstm_layer_fwd_train.launches, lstm_cuda.bilstm_bwd.launches,
+    sweep = getattr(lstm_cuda, lstm_cuda.sweep_kernel([16], 16, torch.float32))
+    before = (lstm_cuda.bilstm_layer_fwd_train.launches, sweep.launches,
               lstm_cuda.bilstm_wgrad.launches)
     got = model_grads(cuda_device)
     torch.cuda.synchronize()
-    after = (lstm_cuda.bilstm_layer_fwd_train.launches, lstm_cuda.bilstm_bwd.launches,
+    after = (lstm_cuda.bilstm_layer_fwd_train.launches, sweep.launches,
              lstm_cuda.bilstm_wgrad.launches)
     assert all(a - b == 2 for a, b in zip(after, before))  # one per layer
     want = model_grads(torch.device("cpu"))
@@ -700,10 +848,12 @@ def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E_parts,H,G,B", [([64], 64, 5, 30), ([64, 64], 64, 1, 50),
-                                           ([32, 32], 32, 3, 24)])
+                                           ([32, 32], 32, 3, 24), ([80], 80, 5, 30)])
 def test_train_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Train forward, sweep and wgrad against their plain versions. Groups
-    of 6 rows (H = 64) and 8 rows (H = 32) are padded to whole row tiles."""
+    of 6 rows (H = 64, 80) and 8 rows (H = 32) are padded to whole row
+    tiles. At H = 80 (a one-layer model at embedding 80) every kernel is a
+    CUDA-core one, the sweep ``bilstm_bwd.cu``."""
     T = 30
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -855,9 +1005,11 @@ def test_recurrence_kernels_match_plain_on_card(cuda_device, dtype, H, G, B, D, 
             assert float((a.float() - b.float()).abs().max()) <= tol * max(
                 1.0, float(b.float().abs().max()))
 
-    # the sweep's launches count on the wrapper of the kernel the dispatch names
+    # the sweep's and wgrad's launches count on the wrapper of the kernel the
+    # dispatch names
     sweep = getattr(lstm_cuda, lstm_cuda.recurrence_sweep_kernel(H, dtype))
-    wrappers = (lstm_cuda.lstm_recurrence_fwd, sweep, lstm_cuda.lstm_recurrence_wgrad)
+    wgrad = getattr(lstm_cuda, lstm_cuda.recurrence_wgrad_kernel(H, dtype))
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, sweep, wgrad)
     before = [f.launches for f in wrappers]
     ref = recurrence_fwd(xg, valid, w, G, dtype)
     close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, dtype), ref)
@@ -1126,3 +1278,147 @@ def test_forward_and_wgrad_mma_edges_on_card(cuda_device):
     with pytest.raises(ValueError, match="no weight-gradient kernel named"):
         lstm_cuda.bilstm_wgrad(torch.zeros(2, 4, 10, 256, dtype=cd, device=cuda_device), parts,
                                hs.new_zeros(4, 10, 64), hs.new_zeros(4, 10, 64), 2, kernel="x")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,ny,final", [
+    ([64], 64, 5, 30, 2, True), ([64, 64], 64, 1, 50, 1, True), ([64], 64, 1, 13, 0, False),
+    ([64, 64], 64, 2, 18, 2, False), ([32, 32], 32, 3, 24, 1, True), ([32], 32, 1, 9, 2, False),
+    ([32], 32, 4, 20, 2, True), ([64], 32, 5, 40, 1, False), ([16], 16, 2, 10, 1, True),
+    ([48], 48, 2, 12, 1, True), ([32], 64, 1, 10, 2, False)])
+def test_bwd_f32_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny, final):
+    """The f32 tensor-core sweep (three tf32 passes) against its plain twin
+    within the f32 tolerance, 1e-4 x max(1, max|ref|): 1 and 2 input parts,
+    0-2 dy streams, with and without final-state cotangents, weight groups
+    of 5, 6, 8, 9, 10, 13 and 50 rows (short tiles inside each group), rows
+    of length 0, 1 and T, rows 8-15 short of T so the second tile skips the
+    positions past its longest row, and the shapes only its run-time
+    instance takes (H = 48, 16; E = 32 at H = 64). The dispatch hands
+    ``bilstm_bwd`` to it; the CUDA-core sweep asked for by name agrees
+    too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_f32.launches)
+    _close(flat(lstm_cuda.bilstm_bwd_f32(*args)), flat(want), 1e-4)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 1e-4)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_f32.launches) == (
+        before[0], before[1] + 2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_bwd_f32_edges_on_card(cuda_device):
+    """An empty batch and T = 0 launch nothing; bf16 operands, H = 80 and an
+    unknown kernel name raise in the f32 wrapper (nothing falls back)."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [64], 64, 2, cd,
+                                                                 cuda_device)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    before = lstm_cuda.bilstm_bwd_f32.launches
+    empty = lambda t: t[:, :0].contiguous()  # noqa: E731
+    out = lstm_cuda.bilstm_bwd_f32(tuple(empty(p) for p in parts), lengths[:0], w_ih,
+                                   w_hh[:, :1].contiguous(), bias, *(empty(t) for t in (
+                                       hs_f, hs_b, cs_f, cs_b)), (), (), None, None, cd)
+    assert out[2].shape == (2, 4, 0, 256) and not out[3].any()
+    assert lstm_cuda.bilstm_bwd_f32.launches == before
+    bf = layer_case(4, 10, [64], 64, 2, torch.bfloat16, cuda_device)
+    hb = bidir_layer(*bf[:5], torch.bfloat16, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
+        lstm_cuda.bilstm_bwd_f32(*bf[:5], hb[0], hb[1], hb[4], hb[5], bf[5][:1], bf[5][2:3],
+                                 None, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="no sweep kernel named"):
+        lstm_cuda.bilstm_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:1],
+                             dy[2:3], dhn, dcn, cd, kernel="fast")
+    wide = layer_case(4, 10, [40], 80, 2, cd, cuda_device)
+    hw = bidir_layer(*wide[:5], cd, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
+        lstm_cuda.bilstm_bwd_f32(*wide[:5], hw[0], hw[1], hw[4], hw[5], wide[5][:1],
+                                 wide[5][2:3], None, None, cd)
+
+
+@pytest.mark.cuda
+def test_f32_model_gradients_take_the_f32_sweep_on_card(cuda_device):
+    """An f32 model at embedding 64 runs its sweeps on the f32 tensor-core
+    kernel (one launch per layer, none of ``bilstm_bwd.cu``), and its
+    gradients equal the CPU plain path's within 1e-4 x max(1, max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_f32, lstm_cuda.bilstm_bwd_mma)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=torch.float32, embedding_size=64)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2, 0]
+    want = model_grads(torch.device("cpu"), dtype=torch.float32, embedding_size=64)
+    for name, grad in got.items():
+        ref = want[name]
+        assert float((grad.cpu() - ref).abs().max()) <= 1e-4 * max(
+            1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 2, 1])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (32, 3, 24, 1),
+                                     (256, 5, 60, 2), (96, 2, 18, 3), (64, 4, 400, 1)])
+def test_recurrence_wgrad_mma_matches_plain_on_card(cuda_device, T, H, G, B, D):
+    """The tensor-core recurrence wgrad against its plain twin in bf16
+    (3e-2 x max(1, max|ref|)): H = 32 (half a column tile), 64, 96 (a
+    partial last tile) and 256, D = 1-3, groups of 9, 10, 12, 24, 50 and 100
+    rows, T = 2 (one row per batch row) and T = 1 (no row: zeros, no
+    launch). The dispatch hands ``lstm_recurrence_wgrad`` to it; the
+    CUDA-core kernel asked for by name agrees too."""
+    cd = torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, "holes",
+                                                  seed=T + B)
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    dxg = torch.rand(T, D, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    want = recurrence_wgrad(hs, dxg, G, cd)
+    before = (lstm_cuda.lstm_recurrence_wgrad.launches,
+              lstm_cuda.lstm_recurrence_wgrad_mma.launches)
+    _close([lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg, G, cd)], [want], 3e-2)
+    _close([lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd)], [want], 3e-2)
+    torch.cuda.synchronize()
+    launched = 2 if T > 1 else 0
+    assert (lstm_cuda.lstm_recurrence_wgrad.launches,
+            lstm_cuda.lstm_recurrence_wgrad_mma.launches) == (before[0], before[1] + launched)
+    _close([lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd, kernel="lstm_recurrence_wgrad")],
+           [want], 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_wgrad.launches == before[0] + launched // 2
+
+
+@pytest.mark.cuda
+def test_recurrence_wgrad_mma_edges_on_card(cuda_device):
+    """Splits past the positions (T = 3 at 400 rows in one group), an empty
+    batch (zeros, no launch); f32 and an unknown kernel name raise."""
+    cd = torch.bfloat16
+    T, D, B, H, G = 3, 1, 400, 64, 1
+    assert lstm_cuda.recurrence_wgrad_mma_plan(T, B, D, G, H)[2] > T
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    hs = torch.rand(T, D, B, H, generator=g, device=cuda_device) * 2 - 1
+    dxg = torch.rand(T, D, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    _close([lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg, G, cd)],
+           [recurrence_wgrad(hs, dxg, G, cd)], 3e-2)
+    before = lstm_cuda.lstm_recurrence_wgrad_mma.launches
+    dw = lstm_cuda.lstm_recurrence_wgrad_mma(hs[:, :, :0].contiguous(),
+                                             dxg[:, :, :0].contiguous(), 1, cd)
+    torch.cuda.synchronize()
+    assert dw.shape == (D, 1, H, 4 * H) and not dw.any()
+    assert lstm_cuda.lstm_recurrence_wgrad_mma.launches == before
+    with pytest.raises(ValueError, match="lstm_recurrence_wgrad_mma kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg, G, torch.float32)
+    with pytest.raises(ValueError, match="no weight-gradient kernel named"):
+        lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd, kernel="fast")
