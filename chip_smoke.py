@@ -13,15 +13,19 @@ exits non-zero with no result):
 2. kernel — the bidirectional-LSTM layer forward (eval variant) against its
    plain PyTorch version on the card, at the serve path's shapes (800 rows,
    T = 1500, H = 64, layer 0 at E = 64 and layer 1 at E = 2 x 64) in f32
-   and bf16, with lengths mixing 0, 1, T and random values, plus H = 32 at
-   a smaller size; then the kernel, the plain version and cuDNN's
-   ``nn.LSTM(bidirectional=True)`` (a yardstick the port never calls)
-   timed with CUDA events at full lengths;
+   (``bilstm_fwd_f32``, three tf32 passes on the tensor cores) and bf16
+   (``bilstm_fwd_mma``), and the CUDA-core ``bilstm_fwd.cu`` asked for by
+   name, with lengths mixing 0, 1, T and random values, plus H = 32 at a
+   smaller size; then the kernel and the CUDA-core one in turns (new, old,
+   old, new), the plain version and cuDNN's ``nn.LSTM(bidirectional=True)``
+   (a yardstick the port never calls) timed with CUDA events at full
+   lengths;
 3. serve — ``Serve.start`` at the manuscript width (vocab 250, E = 64,
    2 layers, f32) with seeded random weights written as a reference-layout
    ``.ckpt``, answering real HTTP requests on 127.0.0.1; probabilities are
-   checked against the port's CPU plain forward, and the kernel's launch
-   counter must rise during the requests;
+   checked against the port's CPU plain forward, and the f32 tensor-core
+   forward's launch counter must rise during the requests and
+   ``bilstm_fwd.cu``'s stay at 0;
 4. train_kernel — the train step's kernels (the forward in both variants,
    the two backward sweeps and the weight-gradient kernel) against their
    plain versions at the train shapes (400 rows in 5 weight groups of 80,
@@ -29,14 +33,16 @@ exits non-zero with no result):
    E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
    per-group maxima: in bf16 the forward, the sweep and wgrad are the
    tensor-core kernels (``bilstm_layer_fwd(_train)_mma``,
-   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the sweep is the
-   3xTF32 tensor-core kernel (``bilstm_bwd_f32``), and the CUDA-core ones,
-   asked for by name, are held too, and the twin with its products in one
-   tf32 pass is recorded beside them (a control for the f32 tolerance); ragged
-   cases (27 rows in 3 groups, T = 1, rows of length 0); ``bilstm_bwd.cu``
-   at its own main path's shapes (E = H = 80, one layer, 5 groups); then
-   each kernel (in bf16 the new and the old
-   in turns, new, old, old, new, in the same run; in f32 the two sweeps so)
+   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the forward and the
+   sweep are the 3xTF32 tensor-core kernels (``bilstm_layer_fwd(_train)_f32``,
+   ``bilstm_bwd_f32``), and the CUDA-core ones, asked for by name, are held
+   too, and the twins with their products in one tf32 pass are recorded
+   beside them (a control for the f32 tolerance); ragged cases (27 rows in 3
+   groups, T = 1, rows of length 0); ``bilstm_fwd.cu`` (both variants) and
+   ``bilstm_bwd.cu`` at their own main path's shapes (E = H = 80, one
+   layer, 5 groups); then each kernel (in bf16 the new and the old in
+   turns, new, old, old, new, in the same run; in f32 the forwards and the
+   sweeps so)
    and a PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
    bf16, cuBLAS products in the same dtype) timed with CUDA events at full
@@ -47,13 +53,14 @@ exits non-zero with no result):
    warm-up steps, 12 timed steps and an eval step, a profiled step, and
    each kernel's launch count: the tensor-core forward (both variants),
    ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma`` must be > 0 and the
-   CUDA-core forward, sweep and wgrad and ``bilstm_bwd_f32`` 0; then 2 steps
-   of the same model in f32 (and a profiled one), which must run the
-   CUDA-core forward and wgrad and ``bilstm_bwd_f32``, and 2 f32 steps of a
-   one-layer model at embedding 80, whose sweep only ``bilstm_bwd.cu``
-   takes; then one step's gradients on the card held against the port's CPU
-   plain path at a small size, in f32 (also at embedding 80, one layer) and
-   in bf16;
+   CUDA-core forward, sweep and wgrad and the f32 tensor-core kernels 0;
+   then 2 steps of the same model in f32 (and a profiled one), which must
+   run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and the CUDA-core
+   wgrad and never the CUDA-core forward, and 2 f32 steps and an eval step
+   of a one-layer model at embedding 80, whose forward (both variants) and
+   sweep only ``bilstm_fwd.cu`` and ``bilstm_bwd.cu`` take; then one step's
+   gradients on the card held against the port's CPU plain path at a small
+   size, in f32 (also at embedding 80, one layer) and in bf16;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -76,12 +83,14 @@ exits non-zero with no result):
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
    groups, and H = 32 at T = 300; f32 and bf16; masks built from lengths
    (mixing 0, 1, T and random values; a suffix for the reverse direction)
-   and a random mask with holes, an all-zero and an all-one row. In bf16
-   at H = 64 and 32 the sweep is the tensor-core kernel
-   (``lstm_recurrence_bwd_mma``), and in bf16 the weight gradient is
-   ``lstm_recurrence_wgrad_mma``; the cluster sweep and the CUDA-core
-   wgrad, asked for by name, are held and timed beside them (new, old, old,
-   new); ragged cases (27 rows in 3 groups, T = 1, 2 and 5). Each is timed
+   and a random mask with holes, an all-zero and an all-one row. At H = 64
+   and 32 the sweep is a tensor-core kernel (``lstm_recurrence_bwd_mma`` in
+   bf16, ``lstm_recurrence_bwd_f32`` in f32, three tf32 passes), and in bf16
+   the weight gradient is ``lstm_recurrence_wgrad_mma``; the cluster sweep
+   and the CUDA-core wgrad, asked for by name, are held and timed beside
+   them (new, old, old, new); ragged cases (27 rows in 3 groups, T = 1, 2
+   and 5); the cluster sweep at its own main path's shapes (H = 128, 5
+   groups, f32). Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and at H = 64
    and 32 in bf16, which also does the input projection; for the weight
@@ -92,18 +101,20 @@ exits non-zero with no result):
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
    ``lstm_recurrence_wgrad_mma`` must be > 0, the cluster sweep, the
    CUDA-core wgrad and the layer kernels 0; then 2 f32 steps (and a
-   profiled one), whose sweep and wgrad must be the cluster sweep and the
-   CUDA-core wgrad alone; a profiled step, peak memory, and the card's
-   gradients against the CPU's on the same backend, in f32 and in bf16;
+   profiled one), whose sweep and wgrad must be ``lstm_recurrence_bwd_f32``
+   and the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
+   embedding 128, whose sweep only the cluster kernel takes; a profiled
+   step, peak memory, and the card's gradients against the CPU's on the
+   same backend, in f32 and in bf16;
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
     1500, batch 64, seeded weights): 4000 rows in input order, the first
     batch's 64 probabilities against the same command on the CPU, the
-    eval kernel's launch count; file-to-file seconds and pairs/s, and
-    where the time goes;
-11. the ``kernels`` line (eighteen kernels, each with launches > 0 on a main
-    path), the card's name and power limit, and the result.
+    f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
+    stay 0); file-to-file seconds and pairs/s, and where the time goes;
+11. the ``kernels`` line (twenty-one kernels, each with launches > 0 on a
+    main path), the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -160,8 +171,10 @@ def phase_build() -> dict:
         bwd_f32_plan,
         bwd_launch_plan,
         bwd_mma_plan,
+        fwd_f32_plan,
         fwd_mma_plan,
         launch_plan,
+        recurrence_f32_smem,
         recurrence_mma_smem,
     )
 
@@ -189,7 +202,11 @@ def phase_build() -> dict:
             E_parts, H_SERVE, torch.bfloat16)[1]
         smem[f"bwd_f32 float32 E={sum(E_parts)}"] = bwd_f32_plan(
             E_parts, H_SERVE, torch.float32)[1]
+        for rows in (8, 16):
+            smem[f"fwd_f32 float32 E={sum(E_parts)} rows={rows}"] = fwd_f32_plan(
+                E_parts, H_SERVE, torch.float32, rows)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
+    smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
@@ -264,6 +281,7 @@ def phase_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops.lstm_cuda import (
         bilstm_layer_fwd,
         bilstm_layer_fwd_plain,
+        fwd_kernel,
     )
 
     checks = []
@@ -280,55 +298,70 @@ def phase_kernel(dev) -> dict:
         args = layer_inputs(B, T, E_parts, H, dtype, dev, SEED + i)
         got = bilstm_layer_fwd(*args, dtype)
         want = bilstm_layer_fwd_plain(*args, dtype)
+        # and the CUDA-core kernel by name, on the same operands
+        old = bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd")
         torch.cuda.synchronize()
-        errs = {
-            name: float((a.float() - b.float()).abs().max())
-            for name, a, b in zip(("hs_f", "hs_b", "hn", "cn"), got, want)
-        }
+        names = ("hs_f", "hs_b", "hn", "cn")
+        errs = {name: float((a.float() - b.float()).abs().max())
+                for name, a, b in zip(names, got, want)}
+        errs.update({f"cuda_core_{name}": float((a.float() - b.float()).abs().max())
+                     for name, a, b in zip(names, old, want)})
         check = {"B": B, "T": T, "H": H, "E_parts": E_parts,
                  "dtype": str(dtype).replace("torch.", ""),
+                 "kernel": fwd_kernel(E_parts, H, dtype),
                  "max_abs_err": errs, "tol": TOL[dtype]}
         checks.append(check)
-        del got, want, args
+        del got, want, old, args
         if not max(errs.values()) <= TOL[dtype]:
             emit({"phase": "kernel", "failed": check})
             raise AssertionError(f"bilstm kernel disagrees with its plain version: {check}")
 
+    # the dispatched kernel (in f32 the 3xTF32 forward, in bf16 the
+    # tensor-core one) and the CUDA-core kernel by name on the same
+    # operands, in turns: new, old, old, new
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         size = torch.empty((), dtype=dtype).element_size()
-        k_ms = p_ms = flops = nbytes = 0.0
+        t = {"kernel": fwd_kernel([E_SERVE], H_SERVE, dtype), "kernel_ms": 0.0,
+             "kernel_ms_again": 0.0, "cuda_core_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
+             "bytes": 0.0}
         for E_parts in ([E_SERVE], [H_SERVE, H_SERVE]):
             args = layer_inputs(B_SERVE, T_SERVE, E_parts, H_SERVE, dtype, dev,
                                 SEED, full_lengths=True)
-            k_ms += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
-            p_ms += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
-            f, b = layer_work(B_SERVE, T_SERVE, sum(E_parts), H_SERVE, size)
-            flops, nbytes = flops + f, nbytes + b
+            a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
+                               lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
+            t["kernel_ms"] += a
+            t["kernel_ms_again"] += b
+            t["cuda_core_ms"] += c
+            t["plain_ms"] += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
+            f, nb = layer_work(B_SERVE, T_SERVE, sum(E_parts), H_SERVE, size)
+            t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + nb
             del args
-        timings[name] = {"kernel_ms": k_ms, "plain_ms": p_ms,
-                         "flops": flops, "bytes": nbytes}
+        t["bound_ms"], t["bound_by"] = bound(
+            [(t["flops"], t["bytes"], kernel_peak(dtype, t["kernel"]))])
+        timings[name] = t
 
     # the kernel at the H = 32 width it also serves (the shapes of TPU
-    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128); in
-    # bf16 the tensor-core forward, beside the CUDA-core one by name
-    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128),
+    # beside the CUDA-core one by name, in turns
+    for dtype in (torch.float32, torch.bfloat16):
         size = torch.empty((), dtype=dtype).element_size()
-        t = {"kernel_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "B": 96, "T": 300}
+        t = {"kernel": fwd_kernel([32], 32, dtype), "kernel_ms": 0.0, "kernel_ms_again": 0.0,
+             "cuda_core_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "B": 96,
+             "T": 300}
         for E_parts in ([32], [32, 32]):
             args = layer_inputs(96, 300, E_parts, 32, dtype, dev, SEED, full_lengths=True)
-            if dtype == torch.bfloat16:
-                a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
-                                   lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
-                t["kernel_ms"] += a
-                t["cuda_core_ms"] = t.get("cuda_core_ms", 0.0) + c
-            else:
-                t["kernel_ms"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
+            a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
+                               lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
+            t["kernel_ms"] += a
+            t["kernel_ms_again"] += b
+            t["cuda_core_ms"] += c
             t["plain_ms"] += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
-            f, b = layer_work(96, 300, sum(E_parts), 32, size)
-            t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + b
-        t["bound_ms"] = max(t["flops"] / peak, t["bytes"] / PEAK_BYTES) * 1e3
+            f, nb = layer_work(96, 300, sum(E_parts), 32, size)
+            t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + nb
+        t["bound_ms"], t["bound_by"] = bound(
+            [(t["flops"], t["bytes"], kernel_peak(dtype, t["kernel"]))])
         lstm = torch.nn.LSTM(32, 32, num_layers=2, bidirectional=True).to(dev).to(dtype)
         x = (torch.rand(300, 96, 32, device=dev) * 2 - 1).to(dtype)
         with torch.inference_mode():
@@ -436,7 +469,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
     from intrepppid_tpu_torch.cli.serve import Serve
     from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
     from intrepppid_tpu_torch.models.factory import intrepppid_network
-    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd, bilstm_layer_fwd_f32
     from intrepppid_tpu_torch.serve import ScoringEngine
     from intrepppid_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -471,8 +504,9 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
         thread.start()
         base = f"http://127.0.0.1:{server.server_address[1]}"
         try:
-            # the main path: every request below goes through the kernel
-            bilstm_layer_fwd.launches = 0
+            # the main path: every request below goes through the f32
+            # tensor-core forward, and none through bilstm_fwd.cu
+            bilstm_layer_fwd.launches = bilstm_layer_fwd_f32.launches = 0
             health = http(base, "/healthz")
             p_small = http(base, "/score", {"pairs": small})["probabilities"]
             big_s, p_big = [], None
@@ -486,7 +520,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                     concurrent,
                 ))
             stats = http(base, "/statsz")
-            launches = bilstm_layer_fwd.launches
+            launches, cuda_core_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd.launches
             # where a bulk request's time goes, without HTTP and JSON: the
             # engine call alone (token cache warm), then under the profiler
             engine_s = []
@@ -505,8 +539,10 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                 or not np.all(np.isfinite(probs)) \
                 or not np.all((probs > 0) & (probs < 1)):
             raise AssertionError("served probabilities are not finite values in (0, 1)")
-        if launches <= 0:
-            raise AssertionError("the requests never launched the bilstm kernel")
+        if launches <= 0 or cuda_core_launches != 0:
+            raise AssertionError(
+                f"the requests launched the f32 tensor-core forward {launches} times and "
+                f"bilstm_fwd.cu {cuda_core_launches} times (want > 0 and 0)")
         if health.get("status") != "ok" or health["model"]["device"] != str(dev):
             raise AssertionError(f"unexpected /healthz: {health}")
 
@@ -531,8 +567,8 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
         "errors": stats["errors"], "bulk_request_s": big_s,
         "pairs_per_s": bulk / float(np.median(big_s)),
         "p50_latency_ms": stats["latency_ms"]["p50"],
-        "launches": launches, "max_abs_err_vs_cpu": err,
-        "cpu_reference_s": cpu_s,
+        "launches": launches, "cuda_core_launches": cuda_core_launches,
+        "max_abs_err_vs_cpu": err, "cpu_reference_s": cpu_s,
         "engine_bulk_s": engine_s, "engine_bulk_profile": breakdown,
     }
     emit(out)
@@ -604,11 +640,15 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
     return lambda: (torch.matmul(d, x), torch.matmul(dg, hp))
 
 
+# the f32 kernels on the tensor cores: three tf32 products for each f32 one
+TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32")
+
+
 def kernel_peak(dtype, name: str = "") -> float:
-    """Peak rate of a kernel's products: the f32 sweep ``bilstm_bwd_f32``
-    does three tf32 tensor-core products for each f32 one (3xTF32); every
+    """Peak rate of a kernel's products: the f32 tensor-core kernels
+    (``TF32_X3``) do three tf32 products for each f32 one (3xTF32); every
     other kernel runs at its dtype's rate (f32 on the CUDA cores)."""
-    if name == "bilstm_bwd_f32":
+    if name in TF32_X3:
         return PEAK_TF32_FLOPS / 3
     return PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
 
@@ -707,16 +747,21 @@ def ragged_sweep_check(dev) -> list:
 
 
 def ragged_fwd_wgrad_check(dev) -> list:
-    """The tensor-core forward (both variants) and wgrad against their twins
-    where no size is round: 27 rows in 3 weight groups of 9 (a short tile
-    in each group), T = 1, rows of length 0, both layer shapes, bf16."""
+    """The tensor-core forwards (both variants) and wgrad against their
+    twins where no size is round: 27 rows in 3 weight groups of 9 (a short
+    tile in each group), T = 1, rows of length 0, both layer shapes; the
+    forward and wgrad in bf16, the 3xTF32 forward in f32."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_wgrad
 
-    cd, H, B, G, T = torch.bfloat16, H_SERVE, 27, 3, 1
+    H, B, G, T = H_SERVE, 27, 3, 1
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     out = []
-    for i, E_parts in enumerate(([E_SERVE], [H, H])):
+    for cd, i, E_parts in ((cd, i, E_parts) for cd in (torch.bfloat16, torch.float32)
+                           for i, E_parts in enumerate(([E_SERVE], [H, H]))):
+        bf16 = cd == torch.bfloat16
+        fwd_eval, fwd_train = ((L.bilstm_layer_fwd_mma, L.bilstm_layer_fwd_train_mma) if bf16
+                               else (L.bilstm_layer_fwd_f32, L.bilstm_layer_fwd_train_f32))
         g = torch.Generator(device=dev).manual_seed(SEED + 75 + i)
 
         def u(*shape, scale=1.0):
@@ -730,19 +775,20 @@ def ragged_fwd_wgrad_check(dev) -> list:
         lengths[::4] = 0
         args = (parts, lengths, w_ih, w_hh, bias, cd)
         want = bidir_layer(*args, with_states=True)
-        res = {n: rel_err(a, b, TOL[cd])
-               for n, a, b in zip(names, L.bilstm_layer_fwd_train_mma(*args), want)}
+        res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, fwd_train(*args), want)}
         res.update({f"eval_{n}": rel_err(a, b, TOL[cd])
-                    for n, a, b in zip(names, L.bilstm_layer_fwd_mma(*args), want[:4])})
-        hs_f, hs_b = want[:2]
-        dgc = u(2, T, B, 4 * H).to(cd)
-        ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
-        got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
-        res["dW_ih"], res["dW_hh"] = (rel_err(got[0], ref[0], TOL[cd]),
-                                      rel_err(got[1], ref[1], TOL[cd]))
+                    for n, a, b in zip(names, fwd_eval(*args), want[:4])})
+        if bf16:
+            hs_f, hs_b = want[:2]
+            dgc = u(2, T, B, 4 * H).to(cd)
+            ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+            got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
+            res["dW_ih"], res["dW_hh"] = (rel_err(got[0], ref[0], TOL[cd]),
+                                          rel_err(got[1], ref[1], TOL[cd]))
         torch.cuda.synchronize()
-        check = {"kernel": "bilstm_fwd_mma, bilstm_wgrad_mma", "B": B, "G": G, "T": T, "H": H,
-                 "E_parts": E_parts, "dtype": "bfloat16",
+        check = {"kernel": "bilstm_fwd_mma, bilstm_wgrad_mma" if bf16 else "bilstm_fwd_f32",
+                 "B": B, "G": G, "T": T, "H": H,
+                 "E_parts": E_parts, "dtype": str(cd).replace("torch.", ""),
                  "max_abs_err": {n: e for n, (e, _) in res.items()},
                  "tol": f"{TOL[cd]} x max(1, max|ref|)"}
         out.append(check)
@@ -752,46 +798,69 @@ def ragged_fwd_wgrad_check(dev) -> list:
     return out
 
 
-def embedding_80_sweep(dev) -> dict:
-    """``bilstm_bwd.cu`` at the shapes of its main path, the f32 steps of a
-    one-layer model at embedding 80 (E = H = 80, 5 weight groups, one dy
-    stream a direction, 400 rows, T = 1500; the tensor-core sweeps take
-    H <= 64): held against its plain twin with the main path's lengths
-    (groups at 0, 1 and T), then timed at full lengths beside the twin
-    (timed once, in the check), its bound at the CUDA cores' f32 rate and
-    cuDNN's one-layer backward for the input, TF32 off."""
+def embedding_80_kernels(dev) -> dict:
+    """``bilstm_fwd.cu`` (both variants) and ``bilstm_bwd.cu`` at the shapes
+    of their main path, the f32 steps (and an eval step) of a one-layer
+    model at embedding 80 (E = H = 80, 5 weight groups, one dy stream a
+    direction, 400 rows, T = 1500; the tensor-core kernels take H <= 64):
+    held against their plain twins with the main path's lengths (groups at
+    0, 1 and T), then timed at full lengths beside the twins (timed once,
+    in the check), their bounds at the CUDA cores' f32 rate and cuDNN's
+    one-layer training forward, inference forward and backward for the
+    input, TF32 off. One dict per kernel: "fwd", "fwd_eval", "bwd"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
 
     E_parts, H, G, cd = [80], 80, G_TRAIN, torch.float32
-    if L.sweep_kernel(E_parts, H, cd) != "bilstm_bwd":
-        raise AssertionError(f"embedding 80's sweep is {L.sweep_kernel(E_parts, H, cd)}")
-    out = {"kernel": "bilstm_bwd", "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
-           "E_parts": E_parts, "ny": 1, "dtype": "float32", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    kernels = (L.fwd_kernel(E_parts, H, cd), L.sweep_kernel(E_parts, H, cd))
+    if kernels != ("bilstm_fwd", "bilstm_bwd"):
+        raise AssertionError(f"embedding 80's forward and sweep are {kernels}")
+    shape = {"B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G, "E_parts": E_parts, "ny": 1,
+             "dtype": "float32", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    out = {k: {"kernel": name, **shape} for k, name in (
+        ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"), ("bwd", "bilstm_bwd"))}
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    work = train_layer_work(sum(E_parts), H, 4, 1)
+    flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=1)
-        hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
-                                                                bias, cd)
+        fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
+        calls = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
+                 "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args)}
+        hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
                 cd)
+        calls["bwd"] = lambda: L.bilstm_bwd(*args)
         if full:
-            out["ms"] = time_ms(lambda: L.bilstm_bwd(*args), 3)
-            add_bounds(out, {"bwd": train_layer_work(sum(E_parts), H, 4, 1)["bwd"]}, cd)
+            for k, call in calls.items():
+                out[k]["ms"] = time_ms(call, 3)
+                add_bounds(out[k], {k: work[k]}, cd)
         else:
-            ref, out["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
-            got = L.bilstm_bwd(*args)
-            flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
-            res = {n: rel_err(a, b, TOL[cd])
-                   for n, a, b in zip(sweep_names(*ref[:2]), flat(got), flat(ref))}
+            want, out["fwd"]["plain_ms"] = timed_once(
+                lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
+            _, out["fwd_eval"]["plain_ms"] = timed_once(
+                lambda: L.bilstm_layer_fwd_plain(*fwd_args))
+            ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+            res = {"fwd": {n: rel_err(a, b, TOL[cd])
+                           for n, a, b in zip(names, calls["fwd"](), want)},
+                   "fwd_eval": {n: rel_err(a, b, TOL[cd])
+                                for n, a, b in zip(names, calls["fwd_eval"](), want)},
+                   "bwd": {n: rel_err(a, b, TOL[cd])
+                           for n, a, b in zip(sweep_names(*ref[:2]), flat(calls["bwd"]()),
+                                              flat(ref))}}
             torch.cuda.synchronize()
-            out["max_abs_err"] = {n: e for n, (e, _) in res.items()}
-            if not all(ok for _, ok in res.values()):
-                emit({"phase": "train_kernel", "failed": out})
-                raise AssertionError(f"bilstm_bwd disagrees with its plain version: {out}")
-            del ref, got
-        del parts, hs_f, hs_b, cs_f, cs_b, args
-    out["library_ms"] = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)["cudnn_bwd_data_ms"]
+            for k, r in res.items():
+                out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
+                if not all(ok for _, ok in r.values()):
+                    emit({"phase": "train_kernel", "failed": out[k]})
+                    raise AssertionError(f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
+            del want, ref, res
+        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls
+    lib = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)
+    for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
+                   ("bwd", "cudnn_bwd_data_ms")):
+        out[k]["library_ms"] = lib[key]
     return out
 
 
@@ -812,8 +881,8 @@ def phase_train_kernel(dev) -> dict:
     checks = []
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     # the kernels the dispatch names: bf16 the tensor-core ones; f32 the
-    # CUDA-core forward and wgrad and the 3xTF32 tensor-core sweep
-    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32", "bilstm_wgrad"),
+    # 3xTF32 tensor-core forward and sweep and the CUDA-core wgrad
+    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the plain versions (Python loops over T) are timed here, once each
     plain_ms = {dtype: {"fwd": 0.0, "fwd_eval": 0.0, "bwd": 0.0, "wgrad": 0.0}
@@ -833,16 +902,16 @@ def phase_train_kernel(dev) -> dict:
             res = {n: err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)}
             got = L.bilstm_layer_fwd(*fwd_args)
             res.update({f"eval_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)})
-            if bf16:
-                # the CUDA-core forward by name, both variants
-                old = L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")
-                res.update({f"cuda_core_{n}": err(a, b, TOL[dtype])
-                            for n, a, b in zip(names, old, want)})
-                old = L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")
-                res.update({f"cuda_core_eval_{n}": err(a, b, TOL[dtype])
-                            for n, a, b in zip(names, old, want)})
-                _, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(*fwd_args))
-                plain_ms[dtype]["fwd_eval"] += ms
+            # the CUDA-core forward by name, both variants
+            old = L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")
+            res.update({f"cuda_core_{n}": err(a, b, TOL[dtype])
+                        for n, a, b in zip(names, old, want)})
+            old = L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")
+            res.update({f"cuda_core_eval_{n}": err(a, b, TOL[dtype])
+                        for n, a, b in zip(names, old, want)})
+            del old
+            _, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(*fwd_args))
+            plain_ms[dtype]["fwd_eval"] += ms
             del got
             hs_f, hs_b, _, _, cs_f, cs_b = want
             bwd_args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
@@ -861,15 +930,20 @@ def phase_train_kernel(dev) -> dict:
             scaled = {}
             if not bf16:
                 # the control the f32 tolerance must tell apart from the
-                # kernel: the twin with its products in one tf32 pass (cuBLAS)
+                # kernels: the twins with their products in one tf32 pass (cuBLAS)
                 torch.backends.cuda.matmul.allow_tf32 = True
                 one_pass = bidir_layer_sweep(*bwd_args)
+                one_pass_fwd = L.bilstm_layer_fwd_plain(*fwd_args, with_states=True)
                 torch.backends.cuda.matmul.allow_tf32 = False
+                fwd_got = L.bilstm_layer_fwd_train(*fwd_args)
                 scaled = {"scaled_err": max(scaled_err(a, b) for a, b in zip(got, refs)),
                           "tf32_one_pass_scaled_err": max(scaled_err(a, b) for a, b in zip(
                               list(one_pass[0]) + list(one_pass[1]) + list(one_pass[2:]),
-                              refs))}
-                del one_pass
+                              refs)),
+                          "fwd_scaled_err": max(scaled_err(a, b) for a, b in zip(fwd_got, want)),
+                          "fwd_tf32_one_pass_scaled_err": max(
+                              scaled_err(a, b) for a, b in zip(one_pass_fwd, want))}
+                del one_pass, one_pass_fwd, fwd_got
             del got
             old = L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")
             res.update({f"cuda_core_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(
@@ -904,8 +978,9 @@ def phase_train_kernel(dev) -> dict:
         t = {f"{k}_ms": 0.0 for k in keys}
         t["wgrad_library_ms"] = 0.0
         t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items() if v})
-        # in turns with the CUDA-core kernel: every kernel in bf16, the sweep in f32
-        turns = keys if bf16 else ["bwd"]
+        # in turns with the CUDA-core kernel: every kernel in bf16; in f32 the
+        # forward (both variants) and the sweep
+        turns = keys if bf16 else ["fwd", "fwd_eval", "bwd"]
         t.update({f"{k}_{what}": 0.0 for k in turns for what in ("ms_again", "cuda_core_ms")})
         work = {k: [0.0, 0.0] for k in keys}
         for i, (E_parts, G) in enumerate(layers):
@@ -941,14 +1016,16 @@ def phase_train_kernel(dev) -> dict:
                 work[k][0] += f
                 work[k][1] += b
             del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args, calls
-        add_bounds(t, work, dtype, {"bwd": kernel_peak(dtype, picked[dtype][1])})
+        add_bounds(t, work, dtype, {"fwd": kernel_peak(dtype, picked[dtype][0]),
+                                    "fwd_eval": kernel_peak(dtype, picked[dtype][0]),
+                                    "bwd": kernel_peak(dtype, picked[dtype][1])})
         t["kernels"] = picked[dtype]
         # the yardstick the port never calls: cuDNN in the same dtype
         t.update(cudnn_stack_times(dev, dtype))
         timings[name] = t
 
     out = {"phase": "train_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings, "embedding_80_sweep": embedding_80_sweep(dev),
+           "timings": timings, "embedding_80": embedding_80_kernels(dev),
            "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
                      "layers": "E=64 (grouped W_hh) + E=2x64"}}
     emit(out)
@@ -982,12 +1059,16 @@ def train_counters():
             "bilstm_bwd_f32": L.bilstm_bwd_f32,
             "bilstm_wgrad": L.bilstm_wgrad, "bilstm_wgrad_mma": L.bilstm_wgrad_mma,
             "bilstm_layer_fwd": L.bilstm_layer_fwd,
-            "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma, "bilstm_gates": L.bilstm_gates,
+            "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma,
+            "bilstm_layer_fwd_f32": L.bilstm_layer_fwd_f32,
+            "bilstm_layer_fwd_train_f32": L.bilstm_layer_fwd_train_f32,
+            "bilstm_gates": L.bilstm_gates,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
+            "lstm_recurrence_bwd_f32": L.lstm_recurrence_bwd_f32,
             "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad,
             "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma}
 
@@ -1020,7 +1101,8 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
-        groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_cuda_core": "bilstm_layer_fwd_kernel",
+        groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_f32": "bilstm_fwd_f32_kernel",
+                "fwd_cuda_core": "bilstm_layer_fwd_kernel",
                 "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_kernel",
                 "sweep_cuda_core": "bilstm_bwd_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_cuda_core": "bilstm_wgrad_kernel"})
@@ -1029,7 +1111,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
            "bilstm_wgrad_mma")
     old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
-           "bilstm_wgrad")
+           "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32")
     missing = [n for n in new if launches[n] <= 0]
     ran_old = [n for n in old if launches[n] != 0]
     if missing or ran_old:
@@ -1037,15 +1119,19 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
             f"the bf16 train and eval steps never launched {missing}, or ran the CUDA-core "
             f"{ran_old}")
     del trainer, net
-    f32 = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd_f32", "bilstm_wgrad"),
+    f32 = f32_steps(dev, batches,
+                    ("bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_wgrad"),
                     ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma",
-                     "bilstm_bwd"))
-    # bilstm_bwd.cu keeps the resident shapes the tensor-core sweeps do not
-    # take: a one-layer f32 model at embedding 80 (H > 64) runs its sweep
-    f32_cuda_core = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_bwd",
-                                             "bilstm_wgrad"),
-                              ("bilstm_bwd_f32", "bilstm_bwd_mma"), embedding_size=80,
-                              rnn_num_layers=1)
+                     "bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd"))
+    # bilstm_fwd.cu and bilstm_bwd.cu keep the resident shapes the
+    # tensor-core kernels do not take: a one-layer f32 model at embedding 80
+    # (H > 64) runs its forward (both variants: an eval step follows the
+    # train steps) and its sweep
+    f32_cuda_core = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
+                                             "bilstm_bwd", "bilstm_wgrad"),
+                              ("bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_layer_fwd_f32",
+                               "bilstm_layer_fwd_train_f32"), eval_step=True,
+                              embedding_size=80, rnn_num_layers=1)
     grad_check = train_grad_check(dev)
     grad_check_80 = train_grad_check(dev, embedding_size=80, rnn_num_layers=1)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -1062,10 +1148,11 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     return out
 
 
-def f32_steps(dev, batches, expect, never, steps=2, **widths) -> dict:
+def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, **widths) -> dict:
     """The same train step with the model in f32 (the factory's default
     compute dtype), a main path of its own: the counts are set to 0 just
-    before and read just after. The dispatch is by dtype and shape: the
+    before and read just after (with ``eval_step``, after an eval step that
+    follows the train steps). The dispatch is by dtype and shape: the
     kernels in ``expect`` must launch and those in ``never`` must not.
     ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
     Then one more step, profiled, after the counts are read."""
@@ -1083,6 +1170,8 @@ def f32_steps(dev, batches, expect, never, steps=2, **widths) -> dict:
         t = time.perf_counter()
         losses.append(trainer.train_step(batches[i % len(batches)])["loss"].item())
         step_ms.append((time.perf_counter() - t) * 1e3)
+    if eval_step:
+        losses.append(trainer.eval_step(batches[0])["loss"].item())
     launches = {name: fn.launches for name, fn in counters.items()}
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite f32 train loss: {losses}")
@@ -1092,13 +1181,14 @@ def f32_steps(dev, batches, expect, never, steps=2, **widths) -> dict:
         raise AssertionError(f"the f32 train steps never launched {missing} or ran {wrong}")
     profile = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
-        groups={"fwd": ("bilstm_layer_fwd_kernel", "lstm_recurrence_fwd_kernel"),
+        groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
+                        "lstm_recurrence_fwd_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
-                          "lstm_recurrence_bwd_kernel"),
+                          "lstm_recurrence_bwd_f32_kernel", "lstm_recurrence_bwd_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "lstm_recurrence_wgrad_kernel"),
                 "gemm": ("gemm", "nvjet", "xmma")})
-    return {"dtype": "float32", "steps": steps, **widths, "step_ms": step_ms, "losses": losses,
-            "launches": launches, "step_profile": profile}
+    return {"dtype": "float32", "steps": steps, "eval_step": eval_step, **widths,
+            "step_ms": step_ms, "losses": losses, "launches": launches, "step_profile": profile}
 
 
 def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
@@ -1239,10 +1329,12 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
         res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
             gnames[:nx] + gnames[-1:], list(old[0]) + list(old[1]) + [old[3]],
             refs[:nx] + refs[-1:])})
+    # the dispatch took a tensor-core forward (bf16, or 3xTF32 in f32); the
+    # CUDA-core one by name
+    res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
+        names, L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"), want)})
     if dtype == torch.bfloat16:
-        # the dispatch took the tensor-core forward and wgrad; the CUDA-core ones by name
-        res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
-            names, L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"), want)})
+        # the dispatch took the tensor-core wgrad; the CUDA-core one by name
         old = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
         res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(old[0], ref[2], tol),
                                                           rel_err(old[1], ref[3], tol))
@@ -1498,7 +1590,8 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
                            "bilstm_bwd_lite", "bilstm_wgrad_mma") if launches[n] <= 0]
     resident = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
                             "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
-                            "bilstm_wgrad") if launches[n] != 0]
+                            "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
+                            "bilstm_bwd_f32") if launches[n] != 0]
     if missing or resident:
         raise AssertionError(
             f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
@@ -1597,10 +1690,10 @@ def recurrence_library(T, H, dev, B=B_TRAIN, dtype=torch.float32):
 
 
 def ragged_recurrence_check(dev) -> list:
-    """The tensor-core recurrence sweep against its twin where no size is
-    round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16;
-    then the tensor-core wgrad there at T = 1 (no row), 2 and 5, at H = 64
-    and at H = 96 (a partial column tile)."""
+    """The tensor-core recurrence sweeps against their twin where no size is
+    round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16
+    and f32 (3xTF32); then the tensor-core wgrad there at T = 1 (no row), 2
+    and 5, at H = 64 and at H = 96 (a partial column tile)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -1609,16 +1702,19 @@ def ragged_recurrence_check(dev) -> list:
     )
 
     cd, out = torch.bfloat16, []
-    for mask in ("lengths", "holes"):
-        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(1, H_SERVE, 3, cd, dev, mask,
+    for sweep, mask in ((sweep, mask) for sweep in (L.lstm_recurrence_bwd_mma,
+                                                    L.lstm_recurrence_bwd_f32)
+                        for mask in ("lengths", "holes")):
+        dt = torch.bfloat16 if sweep is L.lstm_recurrence_bwd_mma else torch.float32
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(1, H_SERVE, 3, dt, dev, mask,
                                                         SEED + 80, B=27)
-        hs, cs, _, _ = recurrence_fwd(xg, valid, w, 3, cd)
-        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, 3, cd)
-        e, ok = rel_err(L.lstm_recurrence_bwd_mma(*args), recurrence_sweep(*args), TOL[cd])
+        hs, cs, _, _ = recurrence_fwd(xg, valid, w, 3, dt)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, 3, dt)
+        e, ok = rel_err(sweep(*args), recurrence_sweep(*args), TOL[dt])
         torch.cuda.synchronize()
-        check = {"kernel": "lstm_recurrence_bwd_mma", "B": 27, "G": 3, "T": 1, "D": D_REC,
-                 "H": H_SERVE, "dtype": "bfloat16", "mask": mask, "max_abs_err": {"dxg": e},
-                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        check = {"kernel": sweep.__name__, "B": 27, "G": 3, "T": 1, "D": D_REC,
+                 "H": H_SERVE, "dtype": str(dt).replace("torch.", ""), "mask": mask,
+                 "max_abs_err": {"dxg": e}, "tol": f"{TOL[dt]} x max(1, max|ref|)"}
         out.append(check)
         if not ok:
             emit({"phase": "recurrence_kernel", "failed": check})
@@ -1639,6 +1735,39 @@ def ragged_recurrence_check(dev) -> list:
                 emit({"phase": "recurrence_kernel", "failed": check})
                 raise AssertionError(
                     f"the ragged recurrence wgrad disagrees with its twin: {check}")
+    return out
+
+
+def cluster_sweep_h128(dev, H=128) -> dict:
+    """The cluster sweep ``lstm_recurrence_bwd.cu`` at the shapes of its main
+    path, the f32 recurrence-backend steps of a one-layer model at
+    embedding 128 (H = 128 > 64, which the tensor-core sweeps do not take):
+    D = 2, 400 rows in 5 weight groups, T = 1500, masks from lengths; held
+    against its plain twin (timed once), then timed beside its bound at the
+    CUDA cores' f32 rate and cuDNN's one-layer backward for the input, TF32
+    off."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+
+    cd, G = torch.float32, G_TRAIN
+    if L.recurrence_sweep_kernel(H, cd) != "lstm_recurrence_bwd":
+        raise AssertionError(f"H={H}'s sweep is {L.recurrence_sweep_kernel(H, cd)}")
+    xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, "lengths", SEED + 90)
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    want, plain_ms = timed_once(lambda: recurrence_sweep(*args))
+    e, ok = rel_err(L.lstm_recurrence_bwd(*args), want, TOL[cd])
+    torch.cuda.synchronize()
+    out = {"kernel": "lstm_recurrence_bwd", "B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "H": H,
+           "G": G, "dtype": "float32", "mask": "lengths", "max_abs_err": {"dxg": e},
+           "tol": f"{TOL[cd]} x max(1, max|ref|)", "plain_ms": plain_ms,
+           "ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)}
+    if not ok:
+        emit({"phase": "recurrence_kernel", "failed": out})
+        raise AssertionError(f"the cluster sweep disagrees with its plain version: {out}")
+    add_bounds(out, {"bwd": recurrence_work(T_TRAIN, H, G, 4)["bwd"]}, cd)
+    del xg, valid, w, dhs, hs, cs, want, args
+    out["library_ms"] = recurrence_library(T_TRAIN, H, dev)[1]
     return out
 
 
@@ -1666,11 +1795,11 @@ def phase_recurrence_kernel(dev) -> dict:
                 hs, cs = ref[:2]
                 args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
                 dxg, bwd_plain_ms = timed_once(lambda: recurrence_sweep(*args))
-                # the sweep the dispatch picks (bf16 at H <= 64: the tensor-core
-                # kernel), and there also the cluster kernel by name
+                # the sweep the dispatch picks (at H <= 64 a tensor-core kernel:
+                # bf16, or 3xTF32 in f32), and there also the cluster kernel by name
                 sweep = L.recurrence_sweep_kernel(H, dtype)
                 res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
-                if sweep == "lstm_recurrence_bwd_mma":
+                if sweep != "lstm_recurrence_bwd":
                     res["cluster_dxg"] = rel_err(
                         L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, tol)
                 dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
@@ -1706,13 +1835,14 @@ def phase_recurrence_kernel(dev) -> dict:
                             hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), 3)
                 else:
                     t["wgrad_ms"] = time_ms(new_wgrad, 3)
-                if sweep == "lstm_recurrence_bwd_mma":
+                if sweep != "lstm_recurrence_bwd":
                     # new, old, old, new: both sweeps in one run, on one card
                     old = [time_ms(lambda: L.lstm_recurrence_bwd(
                         *args, kernel="lstm_recurrence_bwd"), 3) for _ in range(2)]
                     t["bwd_cluster_ms"] = 0.5 * (old[0] + old[1])
                     t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
-                add_bounds(t, recurrence_work(T, H, G, size), dtype)
+                add_bounds(t, recurrence_work(T, H, G, size), dtype,
+                           {"bwd": kernel_peak(dtype, sweep)})
                 library = mask == "lengths" and (dtype == torch.float32 or H != E_SCALED)
                 if library:
                     # yardsticks the port never calls: cuDNN for the recurrence
@@ -1745,7 +1875,8 @@ def phase_recurrence_kernel(dev) -> dict:
                       for k, v in L._cluster_counts.items() if k[0].startswith("lstm_rec")}
     ragged = ragged_recurrence_check(dev)
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings, "max_active_clusters": cluster_counts,
+           "timings": timings, "cluster_h128": cluster_sweep_h128(dev),
+           "max_active_clusters": cluster_counts,
            "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
                       "H = 64 and 32), which also does the input projection; cuBLAS for wgrad "
                       "in the compute dtype"}
@@ -1787,6 +1918,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
             lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
             groups={"fwd": "lstm_recurrence_fwd_kernel",
                     "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
+                    "sweep_f32": "lstm_recurrence_bwd_f32_kernel",
                     "sweep_cluster": "lstm_recurrence_bwd_kernel",
                     "wgrad_mma": "lstm_recurrence_wgrad_mma_kernel",
                     "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
@@ -1800,10 +1932,20 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                 f"the recurrence-backend steps missed {missing} or ran the cluster sweep, the "
                 f"CUDA-core wgrad or a layer kernel: {layer}")
         del trainer, net
+        layer_kernels = tuple(n for n in train_counters() if n.startswith("bilstm_"))
         f32 = f32_steps(dev, batches,
-                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma", "bilstm_bwd",
-                         "bilstm_bwd_mma", "bilstm_bwd_f32"))
+                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
+                         "lstm_recurrence_wgrad"),
+                        ("lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma",
+                         "lstm_recurrence_bwd") + layer_kernels)
+        # the cluster sweep keeps the widths past 64: a one-layer f32 model
+        # at embedding 128 runs it
+        f32_cluster = f32_steps(dev, batches,
+                                ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                                 "lstm_recurrence_wgrad"),
+                                ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
+                                 "lstm_recurrence_wgrad_mma") + layer_kernels,
+                                embedding_size=128, rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -1816,7 +1958,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
            "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
-           "grad_check": grad_check, "grad_check_bf16": grad_check_bf16}
+           "float32_steps_embedding_128": f32_cluster, "grad_check": grad_check,
+           "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
@@ -1827,7 +1970,7 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
     ``tools/bench_infer.py`` builds it."""
     from intrepppid_tpu_torch.__main__ import main as cli
     from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
-    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd, bilstm_layer_fwd_f32
     from intrepppid_tpu_torch.utils.convert import save_reference_checkpoint
 
     spm = ROOT / "tests" / "fixtures" / "golden_spm.model"
@@ -1852,13 +1995,14 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
                         "--trunc_len", str(trunc_len), "--batch_size", str(batch),
                         "--vocab_size", str(vocab), "--device", device])
 
-        # the main path: the command, file to file
-        bilstm_layer_fwd.launches = 0
+        # the main path: the command, file to file, through the f32
+        # tensor-core forward and never bilstm_fwd.cu
+        bilstm_layer_fwd.launches = bilstm_layer_fwd_f32.launches = 0
         t = time.perf_counter()
         n = run(pairs, tmp / "scores.csv", str(dev))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = bilstm_layer_fwd.launches
+        launches, cuda_core_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd.launches
         got = [ln.split(",") for ln in (tmp / "scores.csv").read_text().splitlines()]
         # where the time goes: the same command under the profiler (device
         # busy time and idle share), and the sequence library's tokenising
@@ -1879,8 +2023,10 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
         raise AssertionError(f"infer wrote {len(ids)} rows (returned {n}), or out of input order")
     if not np.all(np.isfinite(probs)) or not np.all((probs > 0) & (probs < 1)):
         raise AssertionError("infer wrote probabilities that are not finite values in (0, 1)")
-    if launches <= 0:
-        raise AssertionError("infer never launched the bilstm kernel")
+    if launches <= 0 or cuda_core_launches != 0:
+        raise AssertionError(
+            f"infer launched the f32 tensor-core forward {launches} times and bilstm_fwd.cu "
+            f"{cuda_core_launches} times (want > 0 and 0)")
     if [r[0] for r in ref] != ids[:batch]:
         raise AssertionError("the CPU run of the first batch wrote other ids")
     err = float(np.abs(probs[:batch] - np.array([float(r[1]) for r in ref])).max())
@@ -1889,7 +2035,7 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
     out = {"phase": "infer", "sequences": n_seqs, "pairs": n_pairs, "trunc_len": trunc_len,
            "batch_size": batch, "vocab": vocab, "file_to_file_s": seconds,
            "pairs_per_s": n_pairs / seconds, "launches": launches,
-           "max_abs_err_vs_cpu": err, "cpu_sample": batch, "cpu_reference_s": cpu_s,
+           "cuda_core_launches": cuda_core_launches, "max_abs_err_vs_cpu": err, "cpu_sample": batch, "cpu_reference_s": cpu_s,
            "tokenise_library_s": tokenise_s, "second_run_profile": breakdown}
     emit(out)
     return out
@@ -1918,26 +2064,35 @@ def main() -> int:
     scaled = phase_train_scaled(dev)
     rk = phase_recurrence_kernel(dev)
     rpath = phase_recurrence_path(dev)
-    phase_infer(dev)
+    infer = phase_infer(dev)
 
+    # the f32 eval forward on the tensor cores (3xTF32): the serve path;
+    # bilstm_fwd.cu by name on the same operands, in turns, is a yardstick
     f32 = kern["timings"]["float32"]
-    bound_ops = f32["flops"] / PEAK_F32_FLOPS * 1e3
-    bound_bytes = f32["bytes"] / PEAK_BYTES * 1e3
-    f32_err = max(max(c["max_abs_err"].values())
-                  for c in kern["checks"] if c["dtype"] == "float32")
+    h32 = kern["timings"]["h32_float32"]
     kernels = [{
-        "name": "bilstm_layer_fwd",
+        "name": "bilstm_layer_fwd_f32",
         "route": "cuda",
-        "source": "intrepppid_tpu_torch/csrc/bilstm_fwd.cu",
+        "source": "intrepppid_tpu_torch/csrc/bilstm_fwd_f32.cu",
         "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:256",
         "launches": serve["launches"],
-        "max_abs_err": f32_err,
+        "max_abs_err": max(max(c["max_abs_err"][n] for n in ("hs_f", "hs_b", "hn", "cn"))
+                           for c in kern["checks"] if c["dtype"] == "float32"),
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-        "work": "eval variant, both layers of one bulk serve dispatch, f32, B=800, T=1500, H=64",
+        "ms_again": f32["kernel_ms_again"],
+        "cuda_core_ms": f32["cuda_core_ms"],
+        "h32_ms": h32["kernel_ms"], "h32_cuda_core_ms": h32["cuda_core_ms"],
+        "h32_plain_ms": h32["plain_ms"], "h32_bound_ms": h32["bound_ms"],
+        "h32_library_ms": h32["library_ms"],
+        "infer_launches": infer["launches"],
+        "work": "eval variant, both layers of one bulk serve dispatch, f32, B=800, T=1500, H=64 "
+                "(16-row tiles); bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
+                "bilstm_fwd.cu by name on the same operands (new, old, old, new); library: "
+                "cuDNN nn.LSTM inference, TF32 off; h32_*: row 3 at H=32, 96 rows, T=300",
     }]
     t32, t16 = tk["timings"]["float32"], tk["timings"]["bfloat16"]
     sweep_errs = ("dxf0", "dxf1", "dxb0", "dxb1", "dgc", "dbias")
@@ -1948,19 +2103,20 @@ def main() -> int:
     }
     library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
                "wgrad": t32["wgrad_library_ms"]}
-    # the CUDA-core forward and wgrad and the 3xTF32 sweep: the f32 step
+    # the 3xTF32 forward and the CUDA-core wgrad: the f32 step
     path_launches = train["float32_steps"]["launches"]
     for key, name, source, replaces in (
-        ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "lstm_pallas_packed.py:256"),
+        ("fwd", "bilstm_layer_fwd_train_f32", "bilstm_fwd_f32.cu", "lstm_pallas_packed.py:256"),
         ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "lstm_pallas_packed.py:494"),
     ):
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
             "launches": path_launches[name],
-            "max_abs_err": max(v for c in tk["checks"] if c["dtype"] == "float32"
+            "max_abs_err": max(v for c in tk["checks"] + tk["ragged_checks"]
+                               if c["dtype"] == "float32"
                                for n, v in c["max_abs_err"].items() if n in train_errs[key]),
             "ms": t32[f"{key}_ms"],
             "plain_ms": t32[f"{key}_plain_ms"],
@@ -1968,7 +2124,24 @@ def main() -> int:
             "bound_by": t32[f"{key}_bound_by"],
             "library_ms": library[key],
             "work": "both layers of one train step, f32, 400 rows (5 groups), T=1500, H=64",
-        })
+        }
+        if key == "fwd":
+            entry.update({
+                "ms_again": t32["fwd_ms_again"], "cuda_core_ms": t32["fwd_cuda_core_ms"],
+                "eval_ms": t32["fwd_eval_ms"], "eval_cuda_core_ms": t32["fwd_eval_cuda_core_ms"],
+                "eval_bound_ms": t32["fwd_eval_bound_ms"],
+                "eval_library_ms": t32["cudnn_inference_ms"],
+                "scaled_err": max(c["fwd_scaled_err"] for c in tk["checks"]
+                                  if c["dtype"] == "float32"),
+                "tf32_one_pass_scaled_err": max(c["fwd_tf32_one_pass_scaled_err"]
+                                                for c in tk["checks"] if c["dtype"] == "float32"),
+            })
+            entry["work"] += ("; 8-row tiles; bound at 495/3 TFLOP/s (three tf32 passes); "
+                              "cuda_core_ms: bilstm_fwd.cu by name on the same operands (new, "
+                              "old, old, new); eval_*: the eval variant on them; library: cuDNN "
+                              "nn.LSTM training forward, TF32 off; tf32_one_pass_scaled_err: the "
+                              "twin in one tf32 pass, against the f32 tolerance 1e-4")
+        kernels.append(entry)
     # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
     # same operands, in turns (new, old, old, new), is a yardstick there
     f32_sweep = [c for c in tk["checks"] + tk["ragged_checks"] if c["dtype"] == "float32"]
@@ -1996,24 +2169,32 @@ def main() -> int:
                 "against the f32 tolerance 1e-4; library: cuDNN nn.LSTM backward (input) in "
                 "f32, TF32 off",
     })
-    # bilstm_bwd.cu at its main path's shapes: the f32 model at embedding 80
-    e80 = tk["embedding_80_sweep"]
-    kernels.append({
-        "name": "bilstm_bwd",
-        "route": "cuda",
-        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
-        "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:494",
-        "launches": train["float32_steps_embedding_80"]["launches"]["bilstm_bwd"],
-        "max_abs_err": max(e80["max_abs_err"].values()),
-        "ms": e80["ms"],
-        "plain_ms": e80["plain_ms"],
-        "bound_ms": e80["bwd_bound_ms"],
-        "bound_by": e80["bwd_bound_by"],
-        "library_ms": e80["library_ms"],
-        "work": "the one layer of the f32 model at embedding 80 (E=H=80, 5 groups, one dy "
-                "stream a direction), 400 rows, T=1500; library: cuDNN one-layer nn.LSTM "
-                "backward (input) in f32, TF32 off",
-    })
+    # the CUDA-core forward (both variants) and sweep at their main path's
+    # shapes: the f32 model at embedding 80 (its train steps and an eval step)
+    e80 = tk["embedding_80"]
+    e80_launches = train["float32_steps_embedding_80"]["launches"]
+    for key, name, source in (("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu"),
+                              ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu"),
+                              ("bwd", "bilstm_bwd", "bilstm_bwd.cu")):
+        e = e80[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{source}",
+            "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:"
+                        + ("494" if key == "bwd" else "256"),
+            "launches": e80_launches[name],
+            "max_abs_err": max(e["max_abs_err"].values()),
+            "ms": e["ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e[f"{key}_bound_ms"],
+            "bound_by": e[f"{key}_bound_by"],
+            "library_ms": e["library_ms"],
+            "work": "the one layer of the f32 model at embedding 80 (E=H=80, 5 groups, one dy "
+                    "stream a direction), 400 rows, T=1500; library: cuDNN one-layer nn.LSTM "
+                    + {"fwd_eval": "inference", "fwd": "training forward",
+                       "bwd": "backward (input)"}[key] + " in f32, TF32 off",
+        })
     kernels.append({
         "name": "bilstm_bwd_mma",
         "route": "cuda",
@@ -2109,32 +2290,64 @@ def main() -> int:
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
-    # the cluster sweep's and the CUDA-core wgrad's main path is the f32 step,
-    # the others' the bf16 step
+    # the f32 sweep's and the CUDA-core wgrad's main path is the f32 step,
+    # the forward's the bf16 step
     rec_launches = {**rpath["launches"], **{
         n: rpath["float32_steps"]["launches"][n]
-        for n in ("lstm_recurrence_bwd", "lstm_recurrence_wgrad")}}
-    for key, replaces in (("fwd", "lstm_pallas.py:116"), ("bwd", "lstm_pallas.py:185"),
-                          ("wgrad", "lstm_pallas.py:185")):
-        ops_ms = sum(t[f"{key}_flops"] for t in step) / PEAK_F32_FLOPS * 1e3
-        bytes_ms = sum(t[f"{key}_bytes"] for t in step) / PEAK_BYTES * 1e3
-        kernels.append({
-            "name": f"lstm_recurrence_{key}",
+        for n in ("lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad")}}
+    for key, name, replaces in (("fwd", "lstm_recurrence_fwd", "lstm_pallas.py:116"),
+                                ("bwd", "lstm_recurrence_bwd_f32", "lstm_pallas.py:185"),
+                                ("wgrad", "lstm_recurrence_wgrad", "lstm_pallas.py:185")):
+        ms_bound, bound_by = bound([(sum(t[f"{key}_flops"] for t in step),
+                                     sum(t[f"{key}_bytes"] for t in step),
+                                     kernel_peak(torch.float32, name))])
+        entry = {
+            "name": name,
             "route": "cuda",
-            "source": f"intrepppid_tpu_torch/csrc/lstm_recurrence_{key}.cu",
+            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": rec_launches[f"lstm_recurrence_{key}"],
-            "max_abs_err": max(v for c in rk["checks"] if c["dtype"] == "float32"
+            "launches": rec_launches[name],
+            "max_abs_err": max(v for c in rk["checks"] + rk["ragged_checks"]
+                               if c["dtype"] == "float32" and (key != "bwd" or name in (
+                                   c.get("sweep"), c.get("kernel")))
                                for n, v in c["max_abs_err"].items() if n in rec_errs[key]),
             "ms": sum(t[f"{key}_ms"] for t in step),
             "plain_ms": sum(t[f"{key}_plain_ms"] for t in step),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": ms_bound,
+            "bound_by": bound_by,
             "library_ms": sum(t[f"{key}_library_ms"] for t in step),
             "work": "both layers of one recurrence-backend step (5 weight groups + 1), f32, "
                     "D=2, 400 rows, T=1500, H=64; library: cuDNN nn.LSTM layers, which also "
                     "do the input projection (cuBLAS for wgrad)",
-        })
+        }
+        if key == "bwd":
+            entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
+                          "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
+                          "g5_ms": step[0]["bwd_ms"], "g5_cluster_ms": step[0]["bwd_cluster_ms"],
+                          "g5_library_ms": step[0]["bwd_library_ms"]})
+            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cluster_ms: "
+                              "lstm_recurrence_bwd.cu by name on the same operands (new, old, "
+                              "old, new); g5_*: layer 0 (5 groups) alone")
+        kernels.append(entry)
+    # the cluster sweep at its main path's shapes: the f32 recurrence-backend
+    # steps of a one-layer model at embedding 128
+    c128 = rk["cluster_h128"]
+    kernels.append({
+        "name": "lstm_recurrence_bwd",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_bwd.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
+        "launches": rpath["float32_steps_embedding_128"]["launches"]["lstm_recurrence_bwd"],
+        "max_abs_err": c128["max_abs_err"]["dxg"],
+        "ms": c128["ms"],
+        "plain_ms": c128["plain_ms"],
+        "bound_ms": c128["bwd_bound_ms"],
+        "bound_by": c128["bwd_bound_by"],
+        "library_ms": c128["library_ms"],
+        "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
+                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
+                "one-layer nn.LSTM backward (input), with the projection's dx",
+    })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     ops_ms = sum(t["bwd_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
@@ -2182,7 +2395,7 @@ def main() -> int:
                 "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
                 "one batched cuBLAS product; bmm_ms: that product alone",
     })
-    if len(kernels) != 18 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 21 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

@@ -1,8 +1,8 @@
 // Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
 // bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
 // lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
-// lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, bilstm_bwd_mma.cu and
-// lstm_recurrence_bwd_mma.cu): compute-dtype conversions, 16-byte stream chunks
+// lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
+// kernels): compute-dtype conversions, 16-byte stream chunks
 // widened to f32 in shared memory, the per-unit four-gate product over
 // weights resident in shared memory, and the launch dispatch of the wide
 // (cluster) kernels.

@@ -40,7 +40,10 @@
 // double-buffered in shared memory in f32, and the next step's x is loaded
 // into registers while the current step computes, so there is one
 // __syncthreads per step.
-// Not yet done: tensor cores (wgmma), and more than one block per row tile.
+// Shapes it keeps: f32 past H = 64 (a one-layer model at embedding 80), and
+// the bf16 shapes bilstm_fwd_mma.cu is not instantiated for; f32 at
+// H <= 64 goes to bilstm_fwd_f32.cu and bf16 there to bilstm_fwd_mma.cu,
+// both on the tensor cores (ops/lstm_cuda.py:fwd_kernel).
 
 #include "bilstm_common.cuh"
 

@@ -1,16 +1,18 @@
 // Bidirectional LSTM layer forward, bf16 compute dtype, H <= 64: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_fwd.cu (which keeps f32), the TPU kernels
+// Replaces, like bilstm_fwd_f32.cu (f32) and bilstm_fwd.cu (which keeps f32
+// past H = 64 and the bf16 shapes this kernel is not instantiated for), the
+// TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _fwd_kernel_packed (via
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states
 //     False (eval variant) and True (train variant, which also emits the
 //     cell stream for the backward);
 //   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas)
 //     -- the same function at the other resident widths.
-// f32 stays on bilstm_fwd.cu: f32 operands on the tensor cores would be
-// TF32, whose 10-bit mantissa breaks the serve path's 1e-4 agreement with
-// the plain forward.
+// f32 at these widths goes to bilstm_fwd_f32.cu, in three tf32 passes: one
+// pass, with tf32's 10-bit mantissa, breaks the serve path's 1e-4
+// agreement with the plain forward.
 //
 // Function (the contract of ops/lstm.py:bidir_layer, as bilstm_fwd.cu): for
 // each direction d and row r, step s reads position pos = s (d = 0) or

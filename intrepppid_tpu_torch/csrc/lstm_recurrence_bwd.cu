@@ -39,7 +39,10 @@
 // step's h_prev tile, input gates, c_prev, dhs and mask bytes are loaded
 // into registers while the current step computes. All streams are addressed
 // in the op's own (T, D, B, .) layout: no transposed copy.
-// Not yet done: tensor cores; a resident variant for H <= 64.
+// Widths it keeps: H = 96 to 256 in either compute dtype (a one-layer model
+// at embedding 128 on the recurrence backend); H = 32 and 64 go to the
+// single-block tensor-core sweeps, lstm_recurrence_bwd_mma.cu (bf16) and
+// lstm_recurrence_bwd_f32.cu (f32) (ops/lstm_cuda.py:recurrence_sweep_kernel).
 
 #include <cooperative_groups.h>
 

@@ -12,12 +12,15 @@ packed, fused or lite kernels:
     ``intrepppid_tpu/ops/lstm_pallas_packed.py:392 _fwd_pallas_packed``
     (``with_states`` False / True; 2H == 128) and of
     ``intrepppid_tpu/ops/lstm_pallas_layer.py:376 _fwd_pallas`` at the
-    other widths that fit. Two kernels do it, picked by shape and dtype
+    other widths that fit. Three kernels do it, picked by shape and dtype
     (``fwd_kernel``): ``bilstm_layer_fwd_mma`` and
     ``bilstm_layer_fwd_train_mma`` launch ``csrc/bilstm_fwd_mma.cu`` (bf16,
-    H <= 64: the products on the tensor cores), and the two wrappers
-    themselves launch ``csrc/bilstm_fwd.cu`` for the rest (f32, CUDA
-    cores). Plain twin of both: ``ops/lstm.py:bidir_layer``.
+    H <= 64: the products on the tensor cores), ``bilstm_layer_fwd_f32`` and
+    ``bilstm_layer_fwd_train_f32`` launch ``csrc/bilstm_fwd_f32.cu`` (f32,
+    H <= 64: three tf32 passes a product on the tensor cores), and the two
+    wrappers themselves launch ``csrc/bilstm_fwd.cu`` for the rest (CUDA
+    cores: f32 past H = 64, and the bf16 shapes the tensor-core forward does
+    not take). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Three kernels do it, picked by shape and dtype (``sweep_kernel``):
@@ -59,12 +62,14 @@ ones:
 * ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
   (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
-  _bwd_pallas`` (``dxg``), by one of two kernels
+  _bwd_pallas`` (``dxg``), by one of three kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
   ``csrc/lstm_recurrence_bwd_mma.cu`` (bf16, H = 32 or 64: one block per
-  row tile, tensor cores), ``lstm_recurrence_bwd`` itself launches the
-  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest. Plain twin
-  of both: ``recurrence_sweep``.
+  row tile, tensor cores), ``lstm_recurrence_bwd_f32`` launches
+  ``csrc/lstm_recurrence_bwd_f32.cu`` (f32, H = 32 or 64: the same design
+  in three tf32 passes), ``lstm_recurrence_bwd`` itself launches the
+  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest (H >= 96).
+  Plain twin of all three: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
@@ -86,7 +91,8 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards, ``bilstm_wgrad`` and ``lstm_recurrence_wgrad``.
+the forwards, ``bilstm_wgrad``, ``lstm_recurrence_bwd`` and
+``lstm_recurrence_wgrad``.
 """
 from __future__ import annotations
 
@@ -128,7 +134,10 @@ SMEM_LIMIT = 232448
 # kMaxThreads, kMaxH, kPad), bilstm_bwd_f32.cu (kMmaTile, kMaxChunks,
 # kMaxThreads, kMaxH, kStrideAlign, kStridePad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
-# kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages)
+# kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
+# bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
+# kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
+# kMaxH, kWPad, kFPad)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -147,6 +156,9 @@ BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
 # chunks a thread copies per step
 FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128))
 FWD_MMA_MAX_CHUNKS = 2
+# the f32 tensor-core forward: x chunks a thread copies per step (its row
+# stride is the f32 sweep's), and the row tiles it takes: one or two n8 tiles
+FWD_F32_MAX_CHUNKS, FWD_F32_ROWS = 2, (8, 16)
 # the tensor-core wgrad: block tile (gate rows x source columns), rows per
 # K-tile, cp.async stages, and its dynamic shared memory
 WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K, WGRAD_MMA_STAGES = 128, 128, 32, 4
@@ -185,6 +197,8 @@ _SIGNATURES = {
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
+    "bilstm_fwd_f32": ("bilstm_fwd_f32", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 8 + [_P]),
+    "lstm_recurrence_bwd_f32": ("lstm_recurrence_bwd_f32", [_P] * 9 + [_I] * 7 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -241,6 +255,19 @@ _CONSTANTS = {
                                    "lstm_recurrence_wgrad_mma_smem"),
                                   (REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N,
                                    REC_WGRAD_MMA_TILE_K, REC_WGRAD_MMA_SMEM)),
+    "bilstm_fwd_f32": (("bilstm_fwd_f32_tile", "bilstm_fwd_f32_max_chunks",
+                        "bilstm_fwd_f32_max_threads", "bilstm_fwd_f32_max_h",
+                        "bilstm_fwd_f32_stride_align", "bilstm_fwd_f32_stride_pad"),
+                       (MMA_TILE, FWD_F32_MAX_CHUNKS, MAX_THREADS, MMA_MAX_H,
+                        BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
+    "lstm_recurrence_bwd_f32": (("lstm_recurrence_bwd_f32_tile",
+                                 "lstm_recurrence_bwd_f32_stages",
+                                 "lstm_recurrence_bwd_f32_max_chunks",
+                                 "lstm_recurrence_bwd_f32_max_h",
+                                 "lstm_recurrence_bwd_f32_w_pad",
+                                 "lstm_recurrence_bwd_f32_f_pad"),
+                                (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
+                                 REC_MMA_F32_PAD)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -436,10 +463,10 @@ def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     return "bilstm_bwd_f32"
 
 
-def mma_tiles(B: int, G: int) -> int:
-    """Row tiles of a tensor-core sweep: each weight group is cut into its
-    own tiles of ``MMA_TILE`` rows (the last one short)."""
-    return G * -(-(B // G) // MMA_TILE)
+def mma_tiles(B: int, G: int, rows: int = MMA_TILE) -> int:
+    """Row tiles of a tensor-core kernel: each weight group is cut into its
+    own tiles of ``rows`` rows (the last one short)."""
+    return G * -(-(B // G) // rows)
 
 
 def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -459,12 +486,62 @@ def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
     return 4 * H, MMA_STAGES * MMA_TILE * (E + H + MMA_PAD) * 2
 
 
+def fwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
+                 rows: int = MMA_TILE) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the f32 tensor-core forward
+    (``csrc/bilstm_fwd_f32.cu``) with row tiles of ``rows`` (8 or 16), or
+    ValueError for a dtype or shape it does not take. It takes float32 with
+    H in {16, 32, 48, 64} and 1 or 2 input parts that are multiples of 8
+    wide, where the f32 weights fit one block beside two [x ; h] stages:
+    one warp per 8 hidden units; shared memory for the weights (4H rows of
+    E + H, stride rounded to 32 floats plus 8) and the two stages; a step's
+    x chunks within the kernel's per-thread constant."""
+    E = sum(E_parts)
+    if (dtype != torch.float32 or H % 16 or not 16 <= H <= MMA_MAX_H
+            or len(E_parts) not in (1, 2) or any(e <= 0 or e % 8 for e in E_parts)
+            or rows not in FWD_F32_ROWS):
+        raise ValueError(
+            f"bilstm_fwd_f32 kernel takes float32 with H in {{16, 32, 48, {MMA_MAX_H}}}, 1 or 2 "
+            f"input parts that are positive multiples of 8 and row tiles of {FWD_F32_ROWS}, got "
+            f"{dtype}, H={H}, E_parts={list(E_parts)}, rows={rows}")
+    threads = 4 * H
+    ks = -(-(E + H) // BWD_F32_STRIDE_ALIGN) * BWD_F32_STRIDE_ALIGN + BWD_F32_STRIDE_PAD
+    smem = (4 * H + 2 * rows) * ks * 4
+    if rows * E // 4 > FWD_F32_MAX_CHUNKS * threads or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"bilstm_fwd_f32 kernel: E={E}, H={H} at {rows}-row tiles needs "
+            f"{rows * E // 4} x chunks (at most {FWD_F32_MAX_CHUNKS} a thread of {threads}) and "
+            f"{smem} bytes of shared memory (at most {SMEM_LIMIT})")
+    return threads, smem
+
+
+def fwd_f32_rows(E_parts: Sequence[int], H: int, B: int, G: int, sms: int) -> int:
+    """Row tile of an f32 tensor-core forward launch (one block per SM: the
+    resident weights take most of its shared memory): 8 rows where the two
+    directions' 8-row tiles fill the card's ``sms`` SMs in one wave (the
+    train step's 400 rows in 5 groups: 100 blocks), else 16 where
+    ``fwd_f32_plan`` takes it, so each split weight fragment feeds two n8
+    products and a large batch takes half the blocks (serve's 800 rows:
+    100 instead of 200)."""
+    if 2 * mma_tiles(B, G) <= sms:
+        return MMA_TILE
+    try:
+        fwd_f32_plan(E_parts, H, torch.float32, 2 * MMA_TILE)
+    except ValueError:
+        return MMA_TILE
+    return 2 * MMA_TILE
+
+
 def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's forward (both variants) takes for a
     layer, by shape and dtype alone: ``"bilstm_fwd_mma"`` where
-    ``fwd_mma_plan`` fits (bf16, H <= 64), else ``"bilstm_fwd"`` where
-    ``launch_plan`` fits (f32, and the bf16 shapes the tensor-core forward
-    does not take); ValueError naming both refusals otherwise."""
+    ``fwd_mma_plan`` fits (bf16, H <= 64); else, where ``launch_plan``
+    fits, ``"bilstm_fwd_f32"`` if ``fwd_f32_plan`` fits too (f32, H <= 64)
+    and ``"bilstm_fwd"`` for the rest (f32 past H = 64, and the bf16 shapes
+    the tensor-core forward does not take); ValueError naming both
+    refusals otherwise. ``launch_plan`` alone decides which shapes the
+    resident route takes, as before the f32 kernel came, so no layer
+    changes route."""
     try:
         fwd_mma_plan(E_parts, H, dtype)
         return "bilstm_fwd_mma"
@@ -473,7 +550,11 @@ def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
             launch_plan(E_parts, H, dtype)
         except ValueError as cores:
             raise ValueError(f"{cores}; {mma}") from None
-    return "bilstm_fwd"
+    try:
+        fwd_f32_plan(E_parts, H, dtype)
+    except ValueError:
+        return "bilstm_fwd"
+    return "bilstm_fwd_f32"
 
 
 def wgrad_check(E_parts: Sequence[int], H: int) -> None:
@@ -736,12 +817,13 @@ def _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
     return outs
 
 
-def _fwd_mma_launch(wrapper, x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
-    """Launch ``csrc/bilstm_fwd_mma.cu`` for ``wrapper`` (the eval or the
-    train variant), which counts the launch; an empty batch launches
-    nothing."""
+def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
+                     with_states):
+    """Launch the tensor-core forward ``csrc/<name>.cu`` (``bilstm_fwd_mma``
+    or ``bilstm_fwd_f32``) for ``wrapper`` (the eval or the train variant),
+    which counts the launch; an empty batch launches nothing."""
     if len(x_parts) not in (1, 2):
-        raise ValueError(f"bilstm_fwd_mma kernel takes 1 or 2 input parts, got {len(x_parts)}")
+        raise ValueError(f"{name} kernel takes 1 or 2 input parts, got {len(x_parts)}")
     cd = compute_dtype
     dev = x_parts[0].device
     T, B = x_parts[0].shape[:2]
@@ -749,7 +831,14 @@ def _fwd_mma_launch(wrapper, x_parts, lengths, w_ih, w_hh, bias, compute_dtype, 
     w_hh = grouped_w_hh(w_hh)
     G = w_hh.shape[1]
     E_parts = [p.shape[-1] for p in x_parts]
-    threads, _ = fwd_mma_plan(E_parts, H, cd)
+    if name == "bilstm_fwd_mma":
+        threads, _ = fwd_mma_plan(E_parts, H, cd)
+        plan = (mma_tiles(B, G), threads)
+    else:
+        # the f32 kernel also takes its row tile and dynamic shared memory; the
+        # plan raises for a dtype or shape it does not take
+        rows = fwd_f32_rows(E_parts, H, B, G, _sm_count(dev))
+        plan = (rows, mma_tiles(B, G, rows), *fwd_f32_plan(E_parts, H, cd, rows))
     for k, p in enumerate(x_parts):
         _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
     _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
@@ -757,7 +846,7 @@ def _fwd_mma_launch(wrapper, x_parts, lengths, w_ih, w_hh, bias, compute_dtype, 
     _check("bias", bias, (2, 4 * H), torch.float32, dev)
     _check("lengths", lengths, (B,), torch.int32, dev)
     if B % G:
-        raise ValueError(f"bilstm_fwd_mma kernel: batch {B} is not a multiple of {G} weight groups")
+        raise ValueError(f"{name} kernel: batch {B} is not a multiple of {G} weight groups")
     hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
     hs_b = torch.empty_like(hs_f)
     cs_f = torch.empty_like(hs_f) if with_states else None
@@ -768,20 +857,20 @@ def _fwd_mma_launch(wrapper, x_parts, lengths, w_ih, w_hh, bias, compute_dtype, 
     if B == 0:
         return outs
     with torch.cuda.device(dev):
-        err = _kernels("bilstm_fwd_mma").bilstm_fwd_mma(
+        err = getattr(_kernels(name), name)(
             _ptr(x_parts, 0), _ptr(x_parts, 1), E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
             lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
             hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
-            hn.data_ptr(), cn.data_ptr(), T, B, H, G, mma_tiles(B, G), threads,
+            hn.data_ptr(), cn.data_ptr(), T, B, H, G, *plan,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on_error("bilstm_fwd_mma", err)
+    _raise_on_error(name, err)
     wrapper.launches += 1
     return outs
 
 
 def _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel: Optional[str]) -> str:
-    if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma"):
+    if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma", "bilstm_fwd_f32"):
         raise ValueError(f"bilstm_layer_fwd: no forward kernel named {kernel!r}")
     return kernel or fwd_kernel([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
 
@@ -806,16 +895,18 @@ def bilstm_layer_fwd(
         (2, B, H)`` f32.
 
     On the card the layer runs the kernel ``fwd_kernel`` names for its
-    shapes and dtype: the tensor-core one through
-    :func:`bilstm_layer_fwd_mma` (whose ``.launches`` then counts it), or
-    ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks for the latter
-    by name (to time it beside the other); a shape it does not take raises.
+    shapes and dtype: a tensor-core one through :func:`bilstm_layer_fwd_mma`
+    (bf16) or :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` then
+    counts it, or ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks
+    for the latter by name (to time it beside the others); a shape it does
+    not take raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    if _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel) == "bilstm_fwd_mma":
-        return bilstm_layer_fwd_mma(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    name = _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel)
+    if name in _TILE_FWD:
+        return _TILE_FWD[name][0](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
     outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, False)
     bilstm_layer_fwd.launches += 1
     return outs
@@ -835,7 +926,8 @@ def bilstm_layer_fwd_train(
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_layer_fwd`: the same operands,
     and also the cell streams the backward reads; the same dispatch (the
-    tensor-core kernel through :func:`bilstm_layer_fwd_train_mma`).
+    tensor-core kernels through :func:`bilstm_layer_fwd_train_mma` and
+    :func:`bilstm_layer_fwd_train_f32`).
 
     :returns: ``hs_f, hs_b, hn, cn`` as the eval variant, then ``cs_f, cs_b
         (T, B, H)`` in ``compute_dtype``.
@@ -844,8 +936,9 @@ def bilstm_layer_fwd_train(
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
                                       with_states=True)
-    if _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel) == "bilstm_fwd_mma":
-        return bilstm_layer_fwd_train_mma(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    name = _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel)
+    if name in _TILE_FWD:
+        return _TILE_FWD[name][1](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
     outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, True)
     bilstm_layer_fwd_train.launches += 1
     return outs
@@ -872,8 +965,8 @@ def bilstm_layer_fwd_mma(
     _no_graph(*x_parts, w_ih, w_hh, bias)
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    return _fwd_mma_launch(bilstm_layer_fwd_mma, x_parts, lengths, w_ih, w_hh, bias,
-                           compute_dtype, False)
+    return _tile_fwd_launch(bilstm_layer_fwd_mma, "bilstm_fwd_mma", x_parts, lengths, w_ih,
+                            w_hh, bias, compute_dtype, False)
 
 
 bilstm_layer_fwd_mma.launches = 0
@@ -894,11 +987,62 @@ def bilstm_layer_fwd_train_mma(
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
                                       with_states=True)
-    return _fwd_mma_launch(bilstm_layer_fwd_train_mma, x_parts, lengths, w_ih, w_hh, bias,
-                           compute_dtype, True)
+    return _tile_fwd_launch(bilstm_layer_fwd_train_mma, "bilstm_fwd_mma", x_parts, lengths,
+                            w_ih, w_hh, bias, compute_dtype, True)
 
 
 bilstm_layer_fwd_train_mma.launches = 0
+
+
+def bilstm_layer_fwd_f32(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The eval variant of one layer in f32 on the tensor cores, three tf32
+    passes a product (``csrc/bilstm_fwd_f32.cu``); the contract of
+    :func:`bilstm_layer_fwd`. Takes the shapes ``fwd_f32_plan`` takes
+    (float32, H <= 64) and raises for the rest; the row tile (8 or 16) is
+    ``fwd_f32_rows``'s. Row tiles are cut inside each weight group, so
+    nothing is padded. Its outputs carry no graph, so under grad mode it
+    refuses an operand that requires grad, on the CPU too."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    return _tile_fwd_launch(bilstm_layer_fwd_f32, "bilstm_fwd_f32", x_parts, lengths, w_ih,
+                            w_hh, bias, compute_dtype, False)
+
+
+bilstm_layer_fwd_f32.launches = 0
+
+
+def bilstm_layer_fwd_train_f32(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_layer_fwd_f32`: also the cell
+    streams ``cs_f, cs_b (T, B, H)``, after ``hn, cn``."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, w_hh, bias)
+    if not x_parts[0].is_cuda:
+        return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
+                                      with_states=True)
+    return _tile_fwd_launch(bilstm_layer_fwd_train_f32, "bilstm_fwd_f32", x_parts, lengths,
+                            w_ih, w_hh, bias, compute_dtype, True)
+
+
+bilstm_layer_fwd_train_f32.launches = 0
+# the tensor-core forwards' (eval, train) wrappers, by kernel name
+_TILE_FWD = {"bilstm_fwd_mma": (bilstm_layer_fwd_mma, bilstm_layer_fwd_train_mma),
+             "bilstm_fwd_f32": (bilstm_layer_fwd_f32, bilstm_layer_fwd_train_f32)}
 
 
 def _sweep_operands(what, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1479,19 +1623,22 @@ def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
         raise ValueError(
             f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {WIDE_MAX_THREADS}}} "
             f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the weight "
-            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweep "
-            f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}), "
-            f"got H={H}, {compute_dtype}")
+            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweeps "
+            f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}, and "
+            f"lstm_recurrence_bwd_f32 float32 there), got H={H}, {compute_dtype}")
 
 
 def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's sweep takes, by width and compute
-    dtype alone: ``"lstm_recurrence_bwd_mma"`` for bfloat16 at H = 32 or 64,
-    else the cluster kernel ``"lstm_recurrence_bwd"`` (float32, and H = 96 to
-    256 in either dtype); ValueError for what neither takes."""
+    dtype alone: at H = 32 or 64 the tensor-core ones,
+    ``"lstm_recurrence_bwd_mma"`` for bfloat16 and
+    ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; the
+    cluster kernel ``"lstm_recurrence_bwd"`` for H = 96 to 256 in either
+    dtype; ValueError for what none takes."""
     recurrence_check(H, compute_dtype)
-    if compute_dtype == torch.bfloat16 and H in REC_MMA_WIDTHS:
-        return "lstm_recurrence_bwd_mma"
+    if H in REC_MMA_WIDTHS:
+        return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
+            else "lstm_recurrence_bwd_f32"
     return "lstm_recurrence_bwd"
 
 
@@ -1503,6 +1650,17 @@ def recurrence_mma_smem(H: int) -> int:
     xs, cs = 4 * H + REC_MMA_F32_PAD, H + REC_MMA_F32_PAD
     return (_a16(4 * H * ws * 2) + _a16(2 * MMA_TILE * gs * 2)
             + MMA_STAGES * MMA_TILE * 4 * (xs + ws + 2 * cs))
+
+
+def recurrence_f32_smem(H: int) -> int:
+    """Dynamic shared memory of the f32 tensor-core recurrence sweep's
+    block: ``w`` pre-split into a big and a small f32 copy (4H x H each,
+    rows padded), two buffers of the big and small f32 dgates tiles, and
+    three stages of the f32 xg, h_prev, c_prev and dhs tiles."""
+    ws, gs = H + MMA_PAD, 4 * H + REC_MMA_F32_PAD
+    xs, cs = 4 * H + REC_MMA_F32_PAD, H + REC_MMA_F32_PAD
+    return 4 * (2 * 4 * H * ws + 2 * 2 * MMA_TILE * gs
+                + MMA_STAGES * MMA_TILE * (xs + ws + 2 * cs))
 
 
 def _recurrence_operands(xg, valid, w, G, cd, what):
@@ -1592,18 +1750,19 @@ def lstm_recurrence_bwd(
     for its width and dtype: the tensor-core one through
     :func:`lstm_recurrence_bwd_mma` (whose ``.launches`` then counts it), or
     the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks for the
-    latter by name (to time it beside the other)."""
+    latter by name (to time it beside the others)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, "lstm_recurrence_bwd_mma"):
+    if kernel not in (None, name, *_TILE_SWEEP):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-    if (kernel or recurrence_sweep_kernel(H, cd)) == "lstm_recurrence_bwd_mma":
-        return lstm_recurrence_bwd_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    kernel = kernel or recurrence_sweep_kernel(H, cd)
+    if kernel in _TILE_SWEEP:
+        return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
@@ -1633,33 +1792,63 @@ def lstm_recurrence_bwd_mma(
     direction, no cluster); the contract of
     ``ops/lstm_recurrence.py:recurrence_sweep``. Takes bfloat16 at H = 32 or
     64 and raises for the rest."""
+    return _tile_recurrence_sweep(lstm_recurrence_bwd_mma, "bfloat16", recurrence_mma_smem,
+                                  xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+
+
+lstm_recurrence_bwd_mma.launches = 0
+
+
+def lstm_recurrence_bwd_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The recurrence's backward sweep in f32 on the tensor cores, three
+    tf32 passes a product (``csrc/lstm_recurrence_bwd_f32.cu``: the design
+    of ``lstm_recurrence_bwd_mma`` with ``w`` resident pre-split); the
+    contract of ``ops/lstm_recurrence.py:recurrence_sweep``. Takes float32
+    at H = 32 or 64 and raises for the rest."""
+    return _tile_recurrence_sweep(lstm_recurrence_bwd_f32, "float32", recurrence_f32_smem,
+                                  xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+
+
+lstm_recurrence_bwd_f32.launches = 0
+# the tensor-core recurrence sweeps' wrappers, by kernel name
+_TILE_SWEEP = {"lstm_recurrence_bwd_mma": lstm_recurrence_bwd_mma,
+               "lstm_recurrence_bwd_f32": lstm_recurrence_bwd_f32}
+
+
+def _tile_recurrence_sweep(wrapper, dtype_name, smem, xg, valid, w, hs, cs, dhs, dhn, dcn, G,
+                           compute_dtype):
+    """The tensor-core recurrence sweeps' common body: ``wrapper`` names the
+    kernel (``csrc/<name>.cu``, one block per 8-row tile and direction),
+    takes compute dtype ``dtype_name`` at H = 32 or 64 and counts its
+    launches; ``smem(H)`` is its dynamic shared memory. On the CPU the plain
+    twin; under grad mode an operand that requires grad is refused."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
-    cd = compute_dtype
-    name = "lstm_recurrence_bwd_mma"
+    cd, name = compute_dtype, wrapper.__name__
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     if recurrence_sweep_kernel(H, cd) != name:
         raise ValueError(
-            f"{name} kernel takes compute dtype bfloat16 with H in {set(REC_MMA_WIDTHS)}, "
+            f"{name} kernel takes compute dtype {dtype_name} with H in {set(REC_MMA_WIDTHS)}, "
             f"got H={H}, {cd}")
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
     with torch.cuda.device(dev):
-        err = _kernels(name).lstm_recurrence_bwd_mma(
+        err = getattr(_kernels(name), name)(
             xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(),
-            D, T, B, H, G, mma_tiles(B, G), recurrence_mma_smem(H),
+            D, T, B, H, G, mma_tiles(B, G), smem(H),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(name, err)
-    lstm_recurrence_bwd_mma.launches += 1
+    wrapper.launches += 1
     return dxg
-
-
-lstm_recurrence_bwd_mma.launches = 0
 
 
 def recurrence_wgrad_kernel(H: int, compute_dtype: torch.dtype) -> str:

@@ -47,7 +47,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
-                       "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma"}
+                       "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
+                       "lstm_recurrence_bwd_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -63,13 +64,19 @@ def test_every_kernel_source_is_built_and_bound():
     for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
-                      ("bilstm_bwd_f32", "mma_tf32(")):
+                      ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
+                      ("lstm_recurrence_bwd_f32", "mma_tf32(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
-    # the f32 sweep takes three tf32 passes a product, never one
-    text = (_build.CSRC / "bilstm_bwd_f32.cu").read_text().rsplit("#include", 1)[1]
-    assert text.count("mma_tf32(") == 6 and text.count("split_tf32(") == 12
+    # the f32 kernels take three tf32 passes a product, never one: the
+    # sweep and the forward split both operands; the recurrence sweep splits
+    # its weights once while staging them, and its dh product takes the
+    # small weights in the m16 tile's rows 8-15 (two mma, four terms)
+    for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_fwd_f32", 3, 6),
+                             ("lstm_recurrence_bwd_f32", 5, 4)):
+        text = (_build.CSRC / f"{name}.cu").read_text().rsplit("#include", 1)[1]
+        assert text.count("mma_tf32(") == mma and text.count("split_tf32(") == split, name
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -1,9 +1,10 @@
 """The port's LSTM kernel wrappers (``intrepppid_tpu_torch/ops/lstm_cuda.py``:
 the eval and train forward, the backward sweep, the weight gradients, the
 wide route's input gates, cluster forward and lite sweep, the time-major
-recurrence op's forward, sweep and weight gradient, and the bf16
-tensor-core forward, sweeps and weight gradient with the dispatch that
-picks them), their plain
+recurrence op's forward, sweep and weight gradient, the bf16
+tensor-core forward, sweeps and weight gradients, and the f32 tensor-core
+forward and sweeps in three tf32 passes, with the dispatch that picks
+them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
 autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
 
@@ -518,11 +519,15 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("H,dtype,kernel", [
     (64, torch.bfloat16, "lstm_recurrence_bwd_mma"), (32, torch.bfloat16, "lstm_recurrence_bwd_mma"),
-    (64, torch.float32, "lstm_recurrence_bwd"), (32, torch.float32, "lstm_recurrence_bwd"),
+    (64, torch.float32, "lstm_recurrence_bwd_f32"), (32, torch.float32, "lstm_recurrence_bwd_f32"),
     (128, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.bfloat16, "lstm_recurrence_bwd"),
     (96, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.float32, "lstm_recurrence_bwd"),
-    (48, torch.bfloat16, None), (64, torch.float16, None)])
+    (96, torch.float32, "lstm_recurrence_bwd"), (128, torch.float32, "lstm_recurrence_bwd"),
+    (48, torch.bfloat16, None), (48, torch.float32, None), (64, torch.float16, None)])
 def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
+    """bf16 at H = 32 / 64 takes the tensor-core sweep, f32 there its three
+    tf32 passes (whose pre-split weights fit one block), and the cluster
+    sweep keeps H >= 96 in either dtype."""
     if kernel is None:
         with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
             lstm_cuda.recurrence_sweep_kernel(H, dtype)
@@ -530,6 +535,8 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     assert lstm_cuda.recurrence_sweep_kernel(H, dtype) == kernel
     if kernel.endswith("mma"):
         assert lstm_cuda.recurrence_mma_smem(H) <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
+    if kernel.endswith("f32"):
+        assert lstm_cuda.recurrence_f32_smem(H) <= lstm_cuda.SMEM_LIMIT
 
 
 
@@ -543,8 +550,14 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
         ([32, 32], 32, torch.bfloat16, "bilstm_fwd_mma"),
         ([48], 48, torch.bfloat16, "bilstm_fwd_mma"),
         ([16], 16, torch.bfloat16, "bilstm_fwd_mma"),
-        ([64], 64, torch.float32, "bilstm_fwd"),       # f32 keeps the CUDA-core forward
-        ([64, 64], 64, torch.float32, "bilstm_fwd"),
+        ([64], 64, torch.float32, "bilstm_fwd_f32"),   # f32: three tf32 passes
+        ([64, 64], 64, torch.float32, "bilstm_fwd_f32"),
+        ([32], 32, torch.float32, "bilstm_fwd_f32"),
+        ([32, 32], 32, torch.float32, "bilstm_fwd_f32"),
+        ([48], 48, torch.float32, "bilstm_fwd_f32"),
+        ([16, 16], 16, torch.float32, "bilstm_fwd_f32"),
+        ([80], 80, torch.float32, "bilstm_fwd"),       # f32 past H = 64: the CUDA-core forward
+        ([128, 128], 128, torch.float32, None),        # too wide for any
         ([32], 64, torch.bfloat16, "bilstm_fwd"),      # (H, E) not instantiated
         ([60], 64, torch.bfloat16, None),               # parts not multiples of 8
         ([128, 128], 128, torch.bfloat16, None),        # too wide for either
@@ -816,6 +829,139 @@ def test_f32_sweep_and_recurrence_wgrad_wrappers_take_plain_versions_on_cpu():
     assert [f.launches for f in wrappers] == before
 
 
+# ------- the f32 tensor-core forward and recurrence sweep (three tf32 passes)
+@pytest.mark.parametrize("E_parts,H,rows,smem", [
+    ([64], 64, 8, 147968), ([64, 64], 64, 8, 217600), ([64, 64], 64, 16, 230400),
+    ([64], 64, 16, 156672), ([32], 32, 8, 41472), ([32, 32], 32, 16, 66560),
+    ([16], 16, 16, 15360), ([48], 48, 8, 86528)])
+def test_fwd_f32_plan(E_parts, H, rows, smem):
+    """One warp per 8 hidden units; shared memory for the f32 weights (4H
+    rows of E + H, stride rounded to 32 floats plus 8) and two [x ; h]
+    stages of 8 or 16 rows: the manuscript's layer 1 at 16-row tiles fits a
+    block by 2 KB; a step's x chunks within the kernel's per-thread
+    constant."""
+    threads, got = lstm_cuda.fwd_f32_plan(E_parts, H, torch.float32, rows)
+    E = sum(E_parts)
+    ks = -(-(E + H) // 32) * 32 + 8
+    assert (threads, got) == (4 * H, smem) == (4 * H, (4 * H + 2 * rows) * ks * 4)
+    assert smem <= lstm_cuda.SMEM_LIMIT and threads <= lstm_cuda.MAX_THREADS
+    assert rows * E // 4 <= lstm_cuda.FWD_F32_MAX_CHUNKS * threads
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan(E_parts, H, torch.bfloat16, rows)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan(E_parts, H, torch.float32, 32)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan([40], 80, torch.float32, rows)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan([8, 8, 8], 16, torch.float32, rows)
+    # 16-row tiles of x past 2H wide would need more chunks a thread
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel: E=64, H=16 at 16-row"):
+        lstm_cuda.fwd_f32_plan([64], 16, torch.float32, 16)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel: E=192, H=64"):
+        lstm_cuda.fwd_f32_plan([96, 96], 64, torch.float32, 8)
+
+
+@pytest.mark.parametrize("B,G,sms,rows", [
+    (800, 1, 132, 16), (800, 5, 132, 16), (400, 5, 132, 8), (400, 1, 132, 8),
+    (128, 1, 132, 8), (120, 5, 132, 8), (528, 1, 132, 8), (536, 1, 132, 16),
+    (400, 5, 80, 16)])
+def test_fwd_f32_rows_picks_the_tile_height(B, G, sms, rows):
+    """8-row tiles where both directions' tiles fill the SMs in one wave
+    (the train step's 400 rows in 5 groups, an infer dispatch of 128
+    rows), 16-row tiles past that (serve's 800 rows: 100 blocks instead of
+    200), unless 16 rows do not fit the plan."""
+    assert lstm_cuda.fwd_f32_rows([64, 64], 64, B, G, sms) == rows
+    assert lstm_cuda.fwd_f32_rows([64], 16, B, G, sms) == 8  # x chunks: 16 rows do not fit
+    assert (2 * lstm_cuda.mma_tiles(B, G, 8) <= sms) == (rows == 8)
+    assert lstm_cuda.mma_tiles(800, 1, 16) == 50 and lstm_cuda.mma_tiles(120, 5, 16) == 10
+
+
+def _resident_before_f32_forward(E_parts, H, dtype):
+    """``layer_route``'s answer as it was before the f32 tensor-core
+    forward: resident where either older forward plan and a sweep fit."""
+    for plan in (lstm_cuda.fwd_mma_plan, lstm_cuda.launch_plan):
+        try:
+            plan(E_parts, H, dtype)
+            break
+        except ValueError:
+            pass
+    else:
+        return False
+    try:
+        lstm_cuda.sweep_kernel(E_parts, H, dtype)
+    except ValueError:
+        return False
+    return True
+
+
+def test_f32_forward_changes_no_route():
+    """``fwd_kernel`` hands f32 layers to ``bilstm_fwd_f32`` only where
+    ``launch_plan`` takes them too, so every (E_parts, H, dtype) keeps the
+    route it had, and bf16 keeps its kernel; the new kernel takes each
+    model shape in f32."""
+    for H in range(8, 272, 8):
+        for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
+                        [32, 32], [48, 48], [64, 64], [128, 128], [256, 256]):
+            for dtype in (torch.float32, torch.bfloat16):
+                try:
+                    route = lstm_cuda.layer_route(E_parts, H, dtype)
+                except ValueError:
+                    route = None
+                assert (route == "resident") == _resident_before_f32_forward(
+                    E_parts, H, dtype), (E_parts, H, dtype)
+                if route != "resident":
+                    continue
+                kernel = lstm_cuda.fwd_kernel(E_parts, H, dtype)
+                if dtype == torch.bfloat16:
+                    assert kernel != "bilstm_fwd_f32"
+                elif H <= 64 and H % 16 == 0 and sum(E_parts) <= 2 * H:
+                    assert kernel == "bilstm_fwd_f32", (E_parts, H)
+                if kernel == "bilstm_fwd_f32":
+                    lstm_cuda.launch_plan(E_parts, H, dtype)
+
+
+def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(
+        6, 6, [16, 16], 16, 2, torch.float32, torch.device("cpu"))
+    cd = torch.float32
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_f32, lstm_cuda.bilstm_layer_fwd_train_f32,
+                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_bwd_f32)
+    before = [f.launches for f in wrappers]
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
+    for got in (lstm_cuda.bilstm_layer_fwd_train_f32(parts, lengths, w_ih, w_hh, bias, cd),
+                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd),
+                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd,
+                                                 kernel="bilstm_fwd_f32")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_layer_fwd_f32(parts, lengths, w_ih, w_hh, bias, cd),
+                lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_layer_fwd_f32(parts, lengths, w_ih.clone().requires_grad_(), w_hh,
+                                       bias, cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_layer_fwd_train_f32(parts, lengths, w_ih, w_hh,
+                                             bias.clone().requires_grad_(), cd)
+    with torch.no_grad():
+        lstm_cuda.bilstm_layer_fwd_f32(parts, lengths, w_ih.clone().requires_grad_(), w_hh,
+                                       bias, cd)
+
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(5, 3, 6, 32, 2, cd, torch.device("cpu"),
+                                                  "holes")
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, 2, cd)
+    rargs = (xg, valid, w, hs, cs, dhs, None, dcn, 2, cd)
+    dxg = recurrence_sweep(*rargs)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd_f32(*rargs), dxg)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs), dxg)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs, kernel="lstm_recurrence_bwd"), dxg)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_f32(xg, valid, w.clone().requires_grad_(), *rargs[3:])
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_f32(xg.clone().requires_grad_(), *rargs[1:])
+    assert [f.launches for f in wrappers] == before
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -828,15 +974,17 @@ def cuda_device():
 def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
     """The card twin of the regression test: the same gradients as the
     CPU's plain path, through the train forward, sweep and wgrad kernels
-    (the sweep counted on the wrapper of the kernel the dispatch names)."""
+    (the forward and the sweep counted on the wrapper of the kernel the
+    dispatch names)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     sweep = getattr(lstm_cuda, lstm_cuda.sweep_kernel([16], 16, torch.float32))
-    before = (lstm_cuda.bilstm_layer_fwd_train.launches, sweep.launches,
-              lstm_cuda.bilstm_wgrad.launches)
+    fwd = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd_train,
+           "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_train_f32}[
+        lstm_cuda.fwd_kernel([16], 16, torch.float32)]
+    before = (fwd.launches, sweep.launches, lstm_cuda.bilstm_wgrad.launches)
     got = model_grads(cuda_device)
     torch.cuda.synchronize()
-    after = (lstm_cuda.bilstm_layer_fwd_train.launches, sweep.launches,
-             lstm_cuda.bilstm_wgrad.launches)
+    after = (fwd.launches, sweep.launches, lstm_cuda.bilstm_wgrad.launches)
     assert all(a - b == 2 for a, b in zip(after, before))  # one per layer
     want = model_grads(torch.device("cpu"))
     for name, grad in got.items():
@@ -894,7 +1042,8 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
     lengths[:3] = torch.tensor([0, 1, T])
     # the launch counts on the wrapper of the kernel the dispatch names
     wrapper = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd,
-               "bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma}[
+               "bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma,
+               "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_f32}[
         lstm_cuda.fwd_kernel(E_parts, H, dtype)]
     before = wrapper.launches
     got = lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype)
@@ -1422,3 +1571,131 @@ def test_recurrence_wgrad_mma_edges_on_card(cuda_device):
         lstm_cuda.lstm_recurrence_wgrad_mma(hs, dxg, G, torch.float32)
     with pytest.raises(ValueError, match="no weight-gradient kernel named"):
         lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd, kernel="fast")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,rows", [
+    ([64], 64, 5, 30, 8), ([64], 64, 5, 30, 16), ([64, 64], 64, 1, 50, 8),
+    ([64, 64], 64, 1, 50, 16), ([32], 32, 5, 40, 16), ([32, 32], 32, 1, 13, 8),
+    ([32, 32], 32, 3, 27, 16), ([16, 16], 16, 4, 20, 16), ([48], 48, 2, 22, 8),
+    ([32], 64, 1, 10, 16)])
+def test_fwd_f32_matches_plain_on_card(cuda_device, monkeypatch, T, E_parts, H, G, B, rows):
+    """The f32 tensor-core forward (three tf32 passes) against its plain
+    twin within the f32 tolerance, 1e-4 x max(1, max|ref|), both variants:
+    1 and 2 input parts, G = 1, 3, 4 and 5 (groups of 5, 6, 8, 9, 11, 13 and
+    50 rows: short tiles inside each group), rows of length 0, 1 and T and
+    rows 8-15 short of T so a tile stops at its longest row, tile heights 8
+    and 16 (pinned with monkeypatch on ``fwd_f32_rows``), and the shapes only
+    its run-time instance takes (H = 48, 16; E = 32 at H = 64). The dispatch
+    hands ``bilstm_layer_fwd(_train)`` to it; the CUDA-core forward asked
+    for by name agrees too."""
+    monkeypatch.setattr(lstm_cuda, "fwd_f32_rows", lambda *shape: rows)
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=T + B)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_f32, lstm_cuda.bilstm_layer_fwd_train_f32)
+    before = [f.launches for f in wrappers]
+    _close(lstm_cuda.bilstm_layer_fwd_train_f32(*args), want, 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd_f32(*args), want[:4], 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args), want, 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 2, 2]
+
+
+@pytest.mark.cuda
+def test_fwd_f32_edges_on_card(cuda_device):
+    """An empty batch launches nothing; T = 0 gives zero final states; bf16
+    operands, H = 80 and an unknown kernel name raise in the f32 wrappers
+    (nothing falls back)."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [64], 64, 2, cd, cuda_device)
+    before = (lstm_cuda.bilstm_layer_fwd_f32.launches,
+              lstm_cuda.bilstm_layer_fwd_train_f32.launches)
+    empty = tuple(p[:, :0].contiguous() for p in parts)
+    out = lstm_cuda.bilstm_layer_fwd_f32(empty, lengths[:0], w_ih, w_hh[:, :1].contiguous(),
+                                         bias, cd)
+    assert [tuple(t.shape) for t in out] == [(4, 0, 64), (4, 0, 64), (2, 0, 64), (2, 0, 64)]
+    assert lstm_cuda.bilstm_layer_fwd_f32.launches == before[0]
+    none = tuple(p[:0].contiguous() for p in parts)
+    _, _, hn, cn, cs_f, _ = lstm_cuda.bilstm_layer_fwd_train_f32(none, lengths, w_ih, w_hh,
+                                                                 bias, cd)
+    torch.cuda.synchronize()
+    assert not hn.any() and not cn.any() and cs_f.shape == (0, 10, 64)
+    assert lstm_cuda.bilstm_layer_fwd_train_f32.launches == before[1] + 1
+    bf = layer_case(4, 10, [64], 64, 2, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.bilstm_layer_fwd_f32(*bf[:5], torch.bfloat16)
+    wide = layer_case(4, 10, [40], 80, 2, cd, cuda_device)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.bilstm_layer_fwd_train_f32(*wide[:5], cd)
+    with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, kernel="fast")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (64, 2, 20, 1),
+                                     (64, 1, 9, 3), (32, 2, 24, 2), (32, 1, 13, 1),
+                                     (32, 3, 27, 3)])
+def test_recurrence_sweep_f32_matches_plain_on_card(cuda_device, H, G, B, D, T, mask):
+    """The f32 tensor-core recurrence sweep (three tf32 passes) against its
+    plain twin within 1e-4 x max(1, max|ref|): masks from lengths and with
+    holes, D = 1, 2, 3, G = 1, 2, 3 and 5 (groups of 12, 10, 9, 13 and 50
+    rows: short tiles), with and without ``dhs`` / ``dcn``. The dispatch
+    hands ``lstm_recurrence_bwd`` to it; the cluster sweep asked for by
+    name agrees too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, mask,
+                                                  seed=T + B)
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    none = (xg, valid, w, hs, cs, None, dhn, None, G, cd)
+    before = (lstm_cuda.lstm_recurrence_bwd.launches, lstm_cuda.lstm_recurrence_bwd_f32.launches)
+    want = recurrence_sweep(*args)
+    _close([lstm_cuda.lstm_recurrence_bwd_f32(*args)], [want], 1e-4)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args)], [want], 1e-4)
+    _close([lstm_cuda.lstm_recurrence_bwd_f32(*none)], [recurrence_sweep(*none)], 1e-4)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.lstm_recurrence_bwd.launches,
+            lstm_cuda.lstm_recurrence_bwd_f32.launches) == (before[0], before[1] + 3)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_recurrence_sweep_f32_edges_on_card(cuda_device):
+    """An empty batch launches nothing; bf16 and H = 128 raise in the f32
+    wrapper, and an unknown kernel name in the dispatcher (nothing falls
+    back)."""
+    cd = torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(4, 2, 8, 64, 1, cd, cuda_device, "holes")
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, 1, cd)
+    before = lstm_cuda.lstm_recurrence_bwd_f32.launches
+    cut = lambda t: t[:, :, :0].contiguous()  # noqa: E731
+    out = lstm_cuda.lstm_recurrence_bwd_f32(cut(xg), cut(valid), w, cut(hs), cut(cs), None,
+                                            None, None, 1, cd)
+    assert out.shape == (4, 2, 0, 256)
+    assert lstm_cuda.lstm_recurrence_bwd_f32.launches == before
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_f32 kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_bwd_f32(xg, valid, w.to(torch.bfloat16), hs, cs, dhs, dhn, dcn,
+                                          1, torch.bfloat16)
+    wide = recurrence_case(4, 2, 8, 128, 1, cd, cuda_device, "holes")
+    hw, cw, _, _ = recurrence_fwd(wide[0], wide[1], wide[2], 1, cd)
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_f32 kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_bwd_f32(wide[0], wide[1], wide[2], hw, cw, None, None, None, 1,
+                                          cd)
+    with pytest.raises(ValueError, match="no sweep kernel named"):
+        lstm_cuda.lstm_recurrence_bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, 1, cd, kernel="fast")
