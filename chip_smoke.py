@@ -67,17 +67,26 @@ exits non-zero with no result):
    shapes (400 rows in 5 groups of 80, T = 1500, H = 256, layer 0 at
    E = 256 with grouped W_hh and a stacked layer at E = 2 x 256) in f32 and
    bf16, at H = 128 (T = 300), and the resident forward, sweep and wgrad at
-   H = 32 (T = 300); in bf16 wgrad is ``bilstm_wgrad_mma`` and the
-   CUDA-core kernel, asked for by name, is held too; then each timed with
-   CUDA events at full lengths beside its plain version and a PyTorch
-   yardstick (cuBLAS, cuDNN), wgrad in bf16 new, old, old, new;
+   H = 32 (T = 300); in bf16 the input gates are ``bilstm_gates_mma``, the
+   lite sweep ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, and
+   the CUDA-core kernels, asked for by name, are held too; the input gates
+   computed twice must agree bit for bit (the backward recomputes them);
+   ragged cases of the two tensor-core kernels (27 rows in 3 groups and in
+   1, T = 1 and 5, every row tile of the sweep); then each timed with CUDA
+   events at full lengths beside its plain version and a PyTorch yardstick
+   in the same dtype (cuBLAS ``addmm``, in bf16 with ``out_dtype=float32``;
+   cuDNN), TF32 off; in bf16 the gates, the sweep and wgrad new, old, old,
+   new, and the sweep at each of its row tiles;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
-   the wide kernels and ``bilstm_wgrad_mma`` and never through the resident
-   kernels or the CUDA-core wgrad, a profiled step and peak memory; then
+   ``bilstm_gates_mma``, the wide forward, ``bilstm_bwd_lite_mma`` and
+   ``bilstm_wgrad_mma`` and never through the resident kernels or the
+   CUDA-core gates, sweep and wgrad, a profiled step and peak memory; then
    one step's gradients at embedding 256 and 3 layers held against the CPU
-   plain path;
+   plain path in f32 (which must run ``bilstm_gates.cu`` and
+   ``bilstm_bwd_lite.cu``: their main path) and in bf16 (which must run
+   the tensor-core ones);
 8. recurrence_kernel — the time-major recurrence op's kernels (forward,
    sweep, weight gradient) against their plain versions at T = 1500,
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
@@ -113,8 +122,8 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (twenty-one kernels, each with launches > 0 on a
-    main path), the card's name and power limit, and the result.
+11. the ``kernels`` line (twenty-three kernels, each with launches > 0 on
+    a main path), the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -166,7 +175,10 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
+        GATES_MMA_SMEM,
+        LITE_MMA_ROWS,
         REC_WGRAD_MMA_SMEM,
+        SMEM_LIMIT,
         WGRAD_MMA_SMEM,
         bwd_f32_plan,
         bwd_launch_plan,
@@ -176,6 +188,7 @@ def phase_build() -> dict:
         launch_plan,
         recurrence_f32_smem,
         recurrence_mma_smem,
+        wide_smem,
     )
 
     t0 = time.perf_counter()
@@ -209,6 +222,11 @@ def phase_build() -> dict:
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
+    smem["gates_mma"] = GATES_MMA_SMEM
+    for H in (128, E_SCALED):
+        for rows in LITE_MMA_ROWS:
+            if wide_smem("lite_mma", H, rows) <= SMEM_LIMIT:
+                smem[f"bwd_lite_mma H={H} rows={rows}"] = wide_smem("lite_mma", H, rows)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -1062,9 +1080,10 @@ def train_counters():
             "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma,
             "bilstm_layer_fwd_f32": L.bilstm_layer_fwd_f32,
             "bilstm_layer_fwd_train_f32": L.bilstm_layer_fwd_train_f32,
-            "bilstm_gates": L.bilstm_gates,
+            "bilstm_gates": L.bilstm_gates, "bilstm_gates_mma": L.bilstm_gates_mma,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
+            "bilstm_bwd_lite_mma": L.bilstm_bwd_lite_mma,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
@@ -1200,20 +1219,29 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
     bf16: 2^-7 x max(1, max|grad|): the streams (hs, cs, dgc, dx) are bf16
     on both sides and the kernels sum in another order, so a stream value
     may land one bf16 ulp (2^-8 relative) apart, and the tensor-core sweep
-    takes its sigmoid and tanh from ex2 and a fast reciprocal."""
+    takes its sigmoid and tanh from ex2 and a fast reciprocal. The card's
+    step is a main path of its own: the launch counts are set to 0 just
+    before it and read just after (``launches``)."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
 
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     batch = quintuplet_batch(np.random.default_rng(SEED + 1), pairs, T)
     grads = {}
+    counters = train_counters()
     for device in (dev, torch.device("cpu")):
         net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
                                  compute_dtype=dtype,
                                  rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0,
                                  **widths)
         tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        if device == dev:
+            for fn in counters.values():
+                fn.launches = 0
         loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
         loss.backward()
+        if device == dev:
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
         grads[device.type] = {n: p.grad.detach().float().cpu()
                               for n, p in net.named_parameters() if p.grad is not None}
     errs = {}
@@ -1227,7 +1255,8 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
         raise AssertionError("the card's step did not reach the same parameters")
     return {"pairs": pairs, "T": T, "dtype": str(dtype).replace("torch.", ""),
             "params": len(errs), **widths, "max_abs_err": max(errs.values()),
-            "tol": f"{tol} x max(1, max|grad|)"}
+            "tol": f"{tol} x max(1, max|grad|)",
+            "launches": {n: v for n, v in launches.items() if v}}
 
 
 # ------------------------------------------------------------ wide kernels
@@ -1268,7 +1297,17 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     tol = TOL[dtype]
     res = {}
     xg = L.bilstm_gates(parts, w_ih, bias, dtype)
-    res["xg"] = rel_err(xg, input_gates(parts, w_ih, bias, dtype), tol)
+    ref = input_gates(parts, w_ih, bias, dtype)
+    res["xg"] = rel_err(xg, ref, tol)
+    # the backward recomputes the gates with the same dispatch: the same bits
+    again = L.bilstm_gates(parts, w_ih, bias, dtype)
+    res["xg_recompute_vs_first"] = (float((again - xg).abs().max()), bool(torch.equal(again, xg)))
+    del again
+    if dtype == torch.bfloat16:
+        # the dispatch took the tensor-core gates; the CUDA-core kernel by name
+        res["cuda_core_xg"] = rel_err(
+            L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates"), ref, tol)
+    del ref
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
@@ -1280,6 +1319,10 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
     res["dgates"] = rel_err(L.bilstm_bwd_lite(*args), dgates, tol)
+    if L.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma":
+        # the dispatch took the tensor-core sweep; the CUDA-core one by name
+        res["cuda_core_dgates"] = rel_err(L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite"),
+                                          dgates, tol)
     del xg, args
     dgc = dgates.to(dtype)
     del dgates
@@ -1344,8 +1387,8 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
 
 def row4_timings(dev, T=300) -> dict:
     """Kernel row 4's function (a layer's backward with dx, dW_ih, dW_hh
-    and dbias) at its TPU shapes, full lengths, 400 rows, f32 at H = 128 and
-    32 and bf16 at H = 32: the port's layer backward on its route
+    and dbias) at its TPU shapes, full lengths, 400 rows, f32 and bf16 at
+    H = 128 and 32: the port's layer backward on its route
     (``layer_bwd`` then ``bilstm_wgrad``), the plain layer backward, and
     cuDNN's backward for input and weights (training forward and backward,
     less the forward) in the same dtype."""
@@ -1353,7 +1396,8 @@ def row4_timings(dev, T=300) -> dict:
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_bwd
 
     out = {}
-    for H, dtype in ((128, torch.float32), (32, torch.float32), (32, torch.bfloat16)):
+    for H, dtype in ((128, torch.float32), (128, torch.bfloat16), (32, torch.float32),
+                     (32, torch.bfloat16)):
         t = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
         work = []  # (flops, bytes, peak) of each kernel the route runs
         size = torch.empty((), dtype=dtype).element_size()
@@ -1434,6 +1478,64 @@ def ragged_wide_wgrad_check(dev, H=E_SCALED) -> list:
     return out
 
 
+def lite_mma_at(rows, args):
+    """``bilstm_bwd_lite_mma(*args)`` with its plan held to row tiles of
+    ``rows`` (the plan's only candidate for the call)."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+
+    keep = L.LITE_MMA_ROWS
+    L.LITE_MMA_ROWS = (rows,)
+    try:
+        return L.bilstm_bwd_lite_mma(*args)
+    finally:
+        L.LITE_MMA_ROWS = keep
+
+
+def ragged_wide_sweep_check(dev, H=E_SCALED) -> list:
+    """The tensor-core input gates and lite sweep against their twins at the
+    scaled width where no size is round: 27 rows in 3 weight groups of 9
+    (one input part) and in 1 group (two parts), T = 1 and 5, lengths
+    mixing 0, 1 and T, every row tile the sweep takes, bf16."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence, input_gates
+
+    cd, B, out = torch.bfloat16, 27, []
+    for i, (E_parts, G, T) in enumerate((([H], 3, 1), ([H, H], 1, 1), ([H], 3, 5),
+                                         ([H, H], 1, 5))):
+        g = torch.Generator(device=dev).manual_seed(SEED + 90 + i)
+
+        def u(*shape):
+            return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+        parts = tuple(u(T, B, e).to(cd) for e in E_parts)
+        w_ih = (u(2, 4 * H, sum(E_parts)) * H ** -0.5).to(cd)
+        w_hh = (u(2, G, 4 * H, H) * H ** -0.5).to(cd)
+        bias = u(2, 4 * H)
+        lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+        lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+        xg = L.bilstm_gates_mma(parts, w_ih, bias, cd)
+        res = {"xg": rel_err(xg, input_gates(parts, w_ih, bias, cd), TOL[cd])}
+        hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+        ny = 2 if G > 1 else 1
+        dy = [u(T, B, H).to(cd) for _ in range(2 * ny)]
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[ny:], u(2, B, H),
+                u(2, B, H), cd)
+        want = bidir_layer_sweep_lite(*args)
+        for rows in L.LITE_MMA_ROWS:
+            if L.wide_smem("lite_mma", H, rows) <= L.SMEM_LIMIT:
+                res[f"dgates_rows{rows}"] = rel_err(lite_mma_at(rows, args), want, TOL[cd])
+        torch.cuda.synchronize()
+        check = {"kernels": ["bilstm_gates_mma", "bilstm_bwd_lite_mma"], "B": B, "G": G, "T": T,
+                 "H": H, "E_parts": E_parts, "dtype": "bfloat16",
+                 "max_abs_err": {n: e for n, (e, _) in res.items()},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "wide_kernel", "failed": check})
+            raise AssertionError(f"a ragged tensor-core wide kernel disagrees with its twin: {check}")
+    return out
+
+
 def phase_wide_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import (
@@ -1459,6 +1561,8 @@ def phase_wide_kernel(dev) -> dict:
             res = run(E_parts, h, G, dtype, dev, SEED + 30 + i, T)
             check = {"route": route, "B": B_TRAIN, "T": T, "H": h, "G": G, "E_parts": E_parts,
                      "dtype": str(dtype).replace("torch.", ""),
+                     "kernels": ([L.gates_kernel(E_parts, h, dtype), L.lite_kernel(h, dtype)]
+                                 if route == "wide" else []),
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
             checks.append(check)
@@ -1466,14 +1570,14 @@ def phase_wide_kernel(dev) -> dict:
                 emit({"phase": "wide_kernel", "failed": check})
                 raise AssertionError(f"a {route}-route kernel disagrees with its twin: {check}")
 
-    ragged = ragged_wide_wgrad_check(dev)
+    ragged = ragged_wide_wgrad_check(dev) + ragged_wide_sweep_check(dev)
 
     # times at full lengths, summed over layer 0 and one stacked layer
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         size = torch.empty((), dtype=dtype).element_size()
-        plain = dtype == torch.float32
+        bf16 = dtype == torch.bfloat16
         t: dict = {}
         work = {k: [0.0, 0.0] for k in ("gates", "fwd", "fwd_eval", "lite", "wgrad")}
 
@@ -1487,53 +1591,65 @@ def phase_wide_kernel(dev) -> dict:
             hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
             lite_args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
-            add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
             add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), 3))
             add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, dtype), 3))
-            add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
-            if plain:
-                add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+            if bf16:
+                # new, old, old, new: the tensor-core kernels and the CUDA-core
+                # ones by name, on the same operands
+                for key, new, old in (
+                    ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
+                     lambda: L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")),
+                    ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
+                     lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite")),
+                    ("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+                     lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")),
+                ):
+                    a, b, c = in_turns(new, old, 3)
+                    add(f"{key}_ms", a)
+                    add(f"{key}_ms_again", b)
+                    add(f"{key}_cuda_core_ms", c)
+                # the sweep's other row tiles on the same operands
+                for rows in L.LITE_MMA_ROWS:
+                    if L.wide_smem("lite_mma", H, rows) <= L.SMEM_LIMIT:
+                        add(f"lite_rows{rows}_ms",
+                            time_ms(lambda: lite_mma_at(rows, lite_args), 3))
             else:
-                # new, old, old, new: the tensor-core wgrad and the CUDA-core one
-                a, b, c = in_turns(
-                    lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                    lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), 3)
-                add("wgrad_ms", a)
-                add("wgrad_ms_again", b)
-                add("wgrad_cuda_core_ms", c)
-                add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
-                add("wgrad_plain_ms",
-                    time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
-            if plain:
-                add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
-                add("fwd_plain_ms", time_ms(
-                    lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True), 1))
-                add("fwd_eval_plain_ms",
-                    time_ms(lambda: bidir_recurrence(xg, lengths, w_hh, dtype), 1))
-                add("lite_plain_ms", time_ms(lambda: bidir_layer_sweep_lite(*lite_args), 1))
-                add("wgrad_plain_ms",
-                    time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
-                # yardsticks the port never calls: one cuBLAS call for the
-                # input gates of both directions, cuBLAS for the weight
-                # gradients, cuDNN for the recurrence and the sweep
-                x = torch.cat(parts, dim=-1).reshape(T_TRAIN * B_TRAIN, -1)
-                w_t, b = w_ih.reshape(8 * H, -1).t(), bias.reshape(-1)
+                add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
+                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
+                add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+            add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
+            add("fwd_plain_ms", time_ms(
+                lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True), 1))
+            add("fwd_eval_plain_ms", time_ms(lambda: bidir_recurrence(xg, lengths, w_hh, dtype), 1))
+            add("lite_plain_ms", time_ms(lambda: bidir_layer_sweep_lite(*lite_args), 1))
+            add("wgrad_plain_ms", time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
+            # yardsticks the port never calls, in the same dtype: one cuBLAS
+            # call for the input gates of both directions (f32 out), cuBLAS for
+            # the weight gradients, cuDNN for the recurrence and the sweep
+            x = torch.cat(parts, dim=-1).reshape(T_TRAIN * B_TRAIN, -1)
+            w_t, b = w_ih.reshape(8 * H, -1).t(), bias.reshape(-1)
+            if bf16:
+                add("gates_library_ms",
+                    time_ms(lambda: torch.addmm(b, x, w_t, out_dtype=torch.float32), 3))
+                add("gates_library_bf16_out_ms",
+                    time_ms(lambda: torch.addmm(b.to(dtype), x, w_t).float(), 3))
+            else:
                 add("gates_library_ms", time_ms(lambda: torch.addmm(b, x, w_t), 3))
-                add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
-                del x, w_t
-                lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev)
-                xl = (torch.rand(T_TRAIN, B_TRAIN, sum(E_parts), device=dev) * 2 - 1)
-                xl.requires_grad_()
-                dy = torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1
-                fwd_ms = time_ms(lambda: lstm(xl), 3)
-                with torch.inference_mode():
-                    add("fwd_eval_library_ms", time_ms(lambda: lstm(xl), 3))
-                for prm in lstm.parameters():
-                    prm.requires_grad_(False)
-                data_ms = time_ms(lambda: torch.autograd.grad(lstm(xl)[0], [xl], dy), 3)
-                add("fwd_library_ms", fwd_ms)
-                add("lite_library_ms", data_ms - fwd_ms)
-                del lstm, xl, dy
+            add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
+            del x, w_t
+            lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev).to(dtype)
+            xl = (torch.rand(T_TRAIN, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).to(dtype)
+            xl.requires_grad_()
+            dy = (torch.rand(T_TRAIN, B_TRAIN, 2 * H, device=dev) * 2 - 1).to(dtype)
+            fwd_ms = time_ms(lambda: lstm(xl), 3)
+            with torch.inference_mode():
+                add("fwd_eval_library_ms", time_ms(lambda: lstm(xl), 3))
+            for prm in lstm.parameters():
+                prm.requires_grad_(False)
+            data_ms = time_ms(lambda: torch.autograd.grad(lstm(xl)[0], [xl], dy), 3)
+            add("fwd_library_ms", fwd_ms)
+            add("lite_library_ms", data_ms - fwd_ms)
+            del lstm, xl, dy
             for k, (f, b) in wide_layer_work(sum(E_parts), H, G, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
@@ -1581,30 +1697,48 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
-        groups={"gates": "bilstm_gates_kernel", "fwd_wide": "bilstm_fwd_wide_kernel",
-                "lite": "bilstm_bwd_lite_kernel", "wgrad_mma": "bilstm_wgrad_mma_kernel",
+        groups={"gates_mma": "bilstm_gates_mma_kernel",
+                "gates_cuda_core": "bilstm_gates_kernel",
+                "fwd_wide": "bilstm_fwd_wide_kernel",
+                "lite_mma": "bilstm_bwd_lite_mma_kernel",
+                "lite_cuda_core": "bilstm_bwd_lite_kernel",
+                "wgrad_mma": "bilstm_wgrad_mma_kernel",
                 "wgrad_cuda_core": "bilstm_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
-    missing = [n for n in ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                           "bilstm_bwd_lite", "bilstm_wgrad_mma") if launches[n] <= 0]
-    resident = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
-                            "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
-                            "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
-                            "bilstm_bwd_f32") if launches[n] != 0]
-    if missing or resident:
+    missing = [n for n in ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                           "bilstm_bwd_lite_mma", "bilstm_wgrad_mma") if launches[n] <= 0]
+    old = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
+                       "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
+                       "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
+                       "bilstm_bwd_f32", "bilstm_gates", "bilstm_bwd_lite") if launches[n] != 0]
+    if missing or old:
         raise AssertionError(
             f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
-            f"wgrad: {resident}")
+            f"gates, sweep or wgrad: {old}")
     del trainer, net
+    # card gradients at the scaled widths: in f32 (the CUDA-core gates and
+    # lite sweep, whose main path this step is) and in bf16 (the tensor-core ones)
     grad_check = train_grad_check(dev, embedding_size=E_SCALED, rnn_num_layers=LAYERS_SCALED)
+    grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16, embedding_size=E_SCALED,
+                                       rnn_num_layers=LAYERS_SCALED)
+    for check, want, never in (
+            (grad_check, ("bilstm_gates", "bilstm_bwd_lite", "bilstm_fwd_wide_train"),
+             ("bilstm_gates_mma", "bilstm_bwd_lite_mma")),
+            (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma"),
+             ("bilstm_gates", "bilstm_bwd_lite", "bilstm_wgrad"))):
+        ran = check["launches"]
+        if any(ran.get(n, 0) <= 0 for n in want) or any(ran.get(n, 0) for n in never):
+            raise AssertionError(f"the {check['dtype']} gradient step at the scaled widths ran "
+                                 f"{ran}; it must run {want} and never {never}")
     median = float(np.median(step_ms))
     out = {"phase": "train_scaled", "embedding": E_SCALED, "layers": LAYERS_SCALED,
            "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16", "optimizer": "ranger21_xx",
            "dropout": 0.3, "step_ms": step_ms, "median_step_ms": median,
            "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
-           "peak_memory_gib": peak_gib, "step_profile": breakdown, "grad_check": grad_check}
+           "peak_memory_gib": peak_gib, "step_profile": breakdown, "grad_check": grad_check,
+           "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
@@ -2262,18 +2396,26 @@ def main() -> int:
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    for key, name, source, replaces in (
-        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285"),
-        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
-        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
-        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
+    # the wide forward runs in the bf16 scaled step; the CUDA-core gates and
+    # lite sweep keep f32, whose main path is the f32 gradient step at the
+    # scaled widths (train_scaled's grad_check)
+    f32_scaled = scaled["grad_check"]["launches"]
+    for key, name, source, replaces, launches in (
+        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285",
+         f32_scaled.get("bilstm_gates", 0)),
+        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285",
+         scaled["launches"]["bilstm_fwd_wide_train"]),
+        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285",
+         scaled["launches"]["bilstm_fwd_wide"]),
+        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436",
+         f32_scaled.get("bilstm_bwd_lite", 0)),
     ):
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": scaled["launches"][name],
+            "launches": launches,
             "max_abs_err": max(v for c in wk["checks"] if c["dtype"] == "float32"
                                and c["route"] == "wide"
                                for n, v in c["max_abs_err"].items() if n in wide_errs[key]),
@@ -2284,7 +2426,55 @@ def main() -> int:
             "library_ms": w32[f"{key}_library_ms"],
             "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, "
                     "400 rows, T=1500, H=256",
-        })
+        }
+        if key.startswith("fwd"):
+            # the scaled step runs it in bf16
+            entry.update({f"bf16_{k}": w16[f"{key}_{k}"]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            entry["work"] += "; bf16_*: the same in bf16 (the scaled step's dtype)"
+        else:
+            entry.update({f"bf16_{k}": w16[f"{key}_{k}"] for k in ("cuda_core_ms", "plain_ms")})
+            entry["work"] += ("; launches: the f32 gradient step at the scaled widths; "
+                              "bf16_cuda_core_ms: this kernel on the bf16 operands of the "
+                              "tensor-core one's row, by name")
+        kernels.append(entry)
+    # the tensor-core gates and lite sweep: the bf16 scaled step
+    for key, name, replaces, library, errs in (
+        ("gates", "bilstm_gates_mma", "lstm_pallas_layer.py:255",
+         "one torch.addmm on the bf16 operands with out_dtype=float32 (cuBLAS); "
+         "library_bf16_out_ms: bf16 addmm then .float()", ("xg",)),
+        ("lite", "bilstm_bwd_lite_mma", "lstm_pallas_layer.py:436",
+         "cuDNN backward (input) of one bidirectional nn.LSTM layer in bf16; library_f32_ms: "
+         "the same in f32, TF32 off", ("dgates",)),
+    ):
+        picked = [v for c in wk["checks"] + wk["ragged_checks"]
+                  if c["dtype"] == "bfloat16" and name in c.get("kernels", ())
+                  for n, v in c["max_abs_err"].items()
+                  if n in errs or (key == "lite" and n.startswith("dgates"))]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": scaled["launches"][name],
+            "max_abs_err": max(picked),
+            "ms": w16[f"{key}_ms"],
+            "plain_ms": w16[f"{key}_plain_ms"],
+            "bound_ms": w16[f"{key}_bound_ms"],
+            "bound_by": w16[f"{key}_bound_by"],
+            "library_ms": w16[f"{key}_library_ms"],
+            "ms_again": w16[f"{key}_ms_again"],
+            "cuda_core_ms": w16[f"{key}_cuda_core_ms"],
+            "library_f32_ms": w32[f"{key}_library_ms"],
+            "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, bf16, "
+                    "400 rows, T=1500, H=256; cuda_core_ms: the CUDA-core kernel by name on the "
+                    f"same operands (new, old, old, new); library: {library}",
+        }
+        if key == "gates":
+            entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
+        else:
+            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith("lite_rows")}
+        kernels.append(entry)
     # the recurrence op: both layers of one recurrence-backend step (layer 0
     # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
@@ -2395,7 +2585,7 @@ def main() -> int:
                 "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
                 "one batched cuBLAS product; bmm_ms: that product alone",
     })
-    if len(kernels) != 21 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 23 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

@@ -49,7 +49,10 @@
 // partials are read). dc stays local. The partial buffer reuses the
 // h_prev tile's shared memory. The next step's h_prev tile, input gates,
 // c_prev and dy are loaded into registers while the current step computes.
-// Not yet done: tensor cores.
+// bf16 at H = 128 and 256 takes bilstm_bwd_lite_mma.cu (the same split
+// with both products on the tensor cores; ops/lstm_cuda.py:lite_kernel);
+// this kernel keeps f32 and the other bf16 widths. Not yet done: f32 on
+// the tensor cores.
 
 #include <cooperative_groups.h>
 

@@ -2,7 +2,8 @@
 // bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
 // lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
 // lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
-// kernels): compute-dtype conversions, 16-byte stream chunks
+// kernels, bilstm_bwd_lite_mma.cu among them on the wide kernels' cluster
+// launch): compute-dtype conversions, 16-byte stream chunks
 // widened to f32 in shared memory, the per-unit four-gate product over
 // weights resident in shared memory, and the launch dispatch of the wide
 // (cluster) kernels.
@@ -153,11 +154,12 @@ int dispatch_wide(int dtype, int rows, F&& f) {
 }
 
 // Launch `kernel` over grid (tiles * kWideCluster, dirs) in clusters of
-// kWideCluster blocks along x, H threads each, `smem` bytes of dynamic
+// kWideCluster blocks along x, `threads` threads each (H for the CUDA-core
+// wide kernels), `smem` bytes of dynamic
 // shared memory. With `max_clusters` non-null, only report how many such
 // clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
 template <typename... Params, typename... Args>
-int launch_wide_dirs(void (*kernel)(Params...), int tiles, int dirs, int H, int smem,
+int launch_wide_dirs(void (*kernel)(Params...), int tiles, int dirs, int threads, int smem,
                      cudaStream_t stream, int* max_clusters, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -169,7 +171,7 @@ int launch_wide_dirs(void (*kernel)(Params...), int tiles, int dirs, int H, int 
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * kWideCluster, dirs, 1);
-  cfg.blockDim = dim3(H, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -185,9 +187,9 @@ int launch_wide_dirs(void (*kernel)(Params...), int tiles, int dirs, int H, int 
 
 // The two-direction launch of the layer kernels.
 template <typename... Params, typename... Args>
-int launch_wide(void (*kernel)(Params...), int tiles, int H, int smem, cudaStream_t stream,
+int launch_wide(void (*kernel)(Params...), int tiles, int threads, int smem, cudaStream_t stream,
                 int* max_clusters, Args... args) {
-  return launch_wide_dirs(kernel, tiles, 2, H, smem, stream, max_clusters, args...);
+  return launch_wide_dirs(kernel, tiles, 2, threads, smem, stream, max_clusters, args...);
 }
 
 // A cluster barrier without release / acquire ordering: enough where it

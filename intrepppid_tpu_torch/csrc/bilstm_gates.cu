@@ -33,7 +33,9 @@
 // fetched into registers while the current one is multiplied, one barrier
 // per slice. A 16-column slice lies inside one input part (each part's
 // width is a multiple of 16).
-// Not yet done: tensor cores (wgmma on bf16 operands) and TMA copies.
+// bf16 operands take bilstm_gates_mma.cu (the same product on the tensor
+// cores; ops/lstm_cuda.py:gates_kernel); this kernel keeps f32. Not yet
+// done: f32 on the tensor cores (three tf32 passes) and TMA copies.
 
 #include "bilstm_common.cuh"
 

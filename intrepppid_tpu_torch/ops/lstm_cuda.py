@@ -33,18 +33,25 @@ packed, fused or lite kernels:
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
 
-  * ``bilstm_gates`` launches ``csrc/bilstm_gates.cu``, the input
-    projection those TPU kernels form in their body (``_xg2``). Plain twin:
+  * ``bilstm_gates`` is the input projection those TPU kernels form in
+    their body (``_xg2``), by one of two kernels (``gates_kernel``):
+    ``bilstm_gates_mma`` launches ``csrc/bilstm_gates_mma.cu`` (bf16: a GEMM
+    on the tensor cores), ``bilstm_gates`` itself launches
+    ``csrc/bilstm_gates.cu`` (f32, CUDA cores). Plain twin of both:
     ``ops/lstm.py:input_gates``.
   * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` launch
     ``csrc/bilstm_fwd_wide.cu``, the recurrence over those gates with
     ``W_hh`` split over a cluster of 8 blocks. With ``bilstm_gates``, the
     counterpart of ``_fwd_pallas`` at these widths. Plain twin:
     ``ops/lstm.py:bidir_recurrence``.
-  * ``bilstm_bwd_lite`` launches ``csrc/bilstm_bwd_lite.cu``, the sweep
-    over the gate streams of ``lstm_pallas_layer.py:723 _bwd_pallas_lite``
-    (f32 gate cotangents out). Plain twin:
-    ``ops/lstm.py:bidir_layer_sweep_lite``.
+  * ``bilstm_bwd_lite`` is the sweep over the gate streams of
+    ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
+    out), by one of two kernels (``lite_kernel``):
+    ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
+    H = 128 and 256: the products on the tensor cores),
+    ``bilstm_bwd_lite`` itself launches ``csrc/bilstm_bwd_lite.cu`` for the
+    rest (f32, and the bf16 widths the tensor-core sweep does not take; CUDA
+    cores). Plain twin of both: ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
   two kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
@@ -91,8 +98,8 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards, ``bilstm_wgrad``, ``lstm_recurrence_bwd`` and
-``lstm_recurrence_wgrad``.
+the forwards, ``bilstm_wgrad``, ``bilstm_gates``, ``bilstm_bwd_lite``,
+``lstm_recurrence_bwd`` and ``lstm_recurrence_wgrad``.
 """
 from __future__ import annotations
 
@@ -137,7 +144,8 @@ SMEM_LIMIT = 232448
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
 # kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
-# kMaxH, kWPad, kFPad)
+# kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
+# bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -173,6 +181,16 @@ REC_WGRAD_MMA_TARGET_BLOCKS = 2 * 132
 # rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
 WIDE_ROWS = (2, 4, 7, 10)
 _WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
+# the tensor-core input gates: block tile (rows x gate columns), input
+# columns a stage, cp.async stages, and its dynamic shared memory
+GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K, GATES_MMA_STAGES = 128, 128, 32, 4
+GATES_MMA_SMEM = GATES_MMA_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
+    GATES_MMA_TILE_K + MMA_PAD) * 2
+# the tensor-core lite sweep: the widths and row tiles it is instantiated
+# for (a row tile is a multiple of the n8 tile), threads a block, and the
+# padding of its f32 xg rows (its bf16 rows take MMA_PAD)
+LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256), (16, 32, 40, 80)
+LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,6 +210,9 @@ _SIGNATURES = {
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
                         + [_I] * 6 + [_P, _P]),
+    "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
+    "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
+                            + [_I] * 6 + [_P, _P]),
     "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
@@ -234,6 +255,14 @@ _CONSTANTS = {
     "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
                          "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
                         (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+    "bilstm_gates_mma": (("bilstm_gates_mma_tile_m", "bilstm_gates_mma_tile_n",
+                          "bilstm_gates_mma_tile_k", "bilstm_gates_mma_stages",
+                          "bilstm_gates_mma_smem"),
+                         (GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K,
+                          GATES_MMA_STAGES, GATES_MMA_SMEM)),
+    "bilstm_bwd_lite_mma": (("bilstm_bwd_lite_mma_cluster", "bilstm_bwd_lite_mma_threads",
+                             "bilstm_bwd_lite_mma_pad", "bilstm_bwd_lite_mma_xg_pad"),
+                            (WIDE_CLUSTER, LITE_MMA_THREADS, MMA_PAD, LITE_MMA_XG_PAD)),
     "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
                              "lstm_recurrence_fwd_rows_mask"),
                             (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
@@ -655,11 +684,67 @@ def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     return "wide"
 
 
-def wide_smem(kind: str, H: int, rows_per_thread: int) -> int:
-    """Dynamic shared memory of a wide kernel's block (``kind`` "fwd" or
-    "bwd"): the f32 ``W_hh`` slice of its H/8 units, the tile's h (and, in
-    the sweep, its rounded gate cotangents)."""
-    U, BR = H // WIDE_CLUSTER, WIDE_CLUSTER * rows_per_thread
+def gates_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The kernel the wide route's input gates take, by shape and dtype
+    alone: ``"bilstm_gates_mma"`` for bfloat16 (the tensor cores; every
+    shape ``wide_check`` admits), ``"bilstm_gates"`` for float32 (CUDA
+    cores); ValueError for a dtype or shape neither takes."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"bilstm gates kernels take float32 or bfloat16, got {dtype}")
+    wide_check(H, E_parts)
+    return "bilstm_gates_mma" if dtype == torch.bfloat16 else "bilstm_gates"
+
+
+def lite_mma_check(H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or width the tensor-core lite sweep
+    (``csrc/bilstm_bwd_lite_mma.cu``) does not take: it takes bfloat16 at
+    H in ``LITE_MMA_WIDTHS`` (whole 8-unit groups in each of the cluster's
+    8 blocks, and the dh product's m16 tiles evenly over 8 warps)."""
+    if dtype != torch.bfloat16 or H not in LITE_MMA_WIDTHS:
+        raise ValueError(
+            f"bilstm_bwd_lite_mma kernel takes bfloat16 with H in {list(LITE_MMA_WIDTHS)}, "
+            f"got {dtype}, H={H}")
+
+
+def lite_kernel(H: int, dtype: torch.dtype) -> str:
+    """The kernel the wide route's sweep takes, by width and dtype alone:
+    ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128
+    or 256), else ``"bilstm_bwd_lite"`` where ``wide_check`` passes (f32,
+    and the bf16 widths the tensor-core sweep does not take); ValueError
+    naming both refusals otherwise."""
+    try:
+        lite_mma_check(H, dtype)
+        return "bilstm_bwd_lite_mma"
+    except ValueError as mma:
+        try:
+            if dtype not in _DTYPE_CODES:
+                raise ValueError(f"bilstm_bwd_lite kernel takes float32 or bfloat16, got {dtype}")
+            wide_check(H)
+        except ValueError as cores:
+            raise ValueError(f"{cores}; {mma}") from None
+    return "bilstm_bwd_lite"
+
+
+def _lite_mma_part_stride(rows: int) -> int:
+    # at least `rows` and 8 mod 32 (csrc/bilstm_bwd_lite_mma.cu:part_stride)
+    return rows + (40 - rows % 32) % 32
+
+
+def wide_smem(kind: str, H: int, rows: int) -> int:
+    """Dynamic shared memory of a wide kernel's block. ``kind`` "fwd" or
+    "bwd" (the CUDA-core kernels, ``rows`` per thread): the f32 ``W_hh``
+    slice of its H/8 units, the tile's h (and, in the sweep, its rounded
+    gate cotangents). ``kind`` "lite_mma" (the tensor-core sweep, a row tile
+    of ``rows``): the bf16 slice and, per row, two h_prev buffers, the f32
+    xg slice, c_prev and two dy streams, the bf16 dgates tile, and two
+    buffers of the f32 partial dh of all H units."""
+    U = H // WIDE_CLUSTER
+    if kind == "lite_mma":
+        BR, pad = rows, MMA_PAD
+        return (4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2
+                + BR * (4 * U + LITE_MMA_XG_PAD) * 4 + 3 * BR * U * 2
+                + BR * (4 * U + pad) * 2 + 2 * H * _lite_mma_part_stride(BR) * 4)
+    BR = WIDE_CLUSTER * rows
     if kind == "fwd":
         return H * 4 * U * 4 + BR * H * 4
     return H * (4 * U + WIDE_PAD) * 4 + BR * H * 4 + BR * 4 * U * 4
@@ -673,17 +758,19 @@ def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
 
 def wide_plan(kind: str, B: int, G: int, H: int,
               max_clusters: Callable[[int, int], int], dirs: int = 2) -> Tuple[int, int, int]:
-    """``(rows_per_thread, tiles, smem_bytes)`` of a wide launch: the rows
-    per thread whose clusters (one per row tile and each of the ``dirs``
-    directions) fill the card in the fewest waves, and among those the
-    smallest tile. ``max_clusters(rows_per_thread, smem)`` is how many
-    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    """``(rows, tiles, smem_bytes)`` of a wide launch: the rows whose
+    clusters (one per row tile and each of the ``dirs`` directions) fill the
+    card in the fewest waves, and among those the smallest tile; ``rows``
+    is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
+    row tile (``LITE_MMA_ROWS``, multiples of 8) for ``kind`` "lite_mma".
+    ``max_clusters(rows, smem)`` is how many clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
     best = None
-    for R in WIDE_ROWS:
+    for R in LITE_MMA_ROWS if kind == "lite_mma" else WIDE_ROWS:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = wide_tiles(B, G, R)
+        tiles = mma_tiles(B, G, R) if kind == "lite_mma" else wide_tiles(B, G, R)
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -696,17 +783,21 @@ _cluster_counts: Dict[tuple, int] = {}
 # the operands between (dtype, rows_per_thread) and (T, B, H, G, tiles,
 # smem) of each wide kernel's C entry, when it only reports occupancy
 _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
+                "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
+    # the tensor-core sweep's C entry takes no dtype code (bf16 only)
+    lead = [] if name == "bilstm_bwd_lite_mma" else [_DTYPE_CODES[dtype]]
+
     def count(R: int, smem: int) -> int:
         key = (name, dtype, H, R, smem, dev.index)
         if key not in _cluster_counts:
             out = ctypes.c_int(0)
             with torch.cuda.device(dev):
                 err = getattr(_kernels(name), name)(
-                    _DTYPE_CODES[dtype], R, *_NO_OPERANDS[name], 0, 0, H, 1, 1, smem, None,
+                    *lead, R, *_NO_OPERANDS[name], 0, 0, H, 1, 1, smem, None,
                     ctypes.byref(out))
             _raise_on_error(name, err)
             _cluster_counts[key] = out.value
@@ -1396,22 +1487,8 @@ def bilstm_wgrad_mma(
 bilstm_wgrad_mma.launches = 0
 
 
-def bilstm_gates(
-    x_parts: Sequence[torch.Tensor],
-    w_ih: torch.Tensor,
-    bias: torch.Tensor,
-    compute_dtype: torch.dtype,
-) -> torch.Tensor:
-    """The input projection of one layer; the contract of
-    ``ops/lstm.py:input_gates``: ``xg (2, T, B, 4H)`` f32 from 1 or 2
-    ``(T, B, E_i)`` parts and ``w_ih (2, 4H, E)`` in ``compute_dtype`` and
-    the f32 ``bias (2, 4H)``."""
-    x_parts = tuple(x_parts)
-    if not x_parts[0].is_cuda:
-        return input_gates(x_parts, w_ih, bias, compute_dtype)
-    cd = compute_dtype
-    if cd not in _DTYPE_CODES:
-        raise ValueError(f"bilstm_gates kernel takes float32 or bfloat16, got {cd}")
+def _gates_operands(x_parts, w_ih, bias, cd):
+    """Checked operands of an input-gate kernel: ``(dev, T, B, H, E_parts)``."""
     _no_graph(*x_parts, w_ih, bias)
     dev = x_parts[0].device
     T, B = x_parts[0].shape[:2]
@@ -1422,6 +1499,38 @@ def bilstm_gates(
         _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
     _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
     _check("bias", bias, (2, 4 * H), torch.float32, dev)
+    return dev, T, B, H, E_parts
+
+
+def bilstm_gates(
+    x_parts: Sequence[torch.Tensor],
+    w_ih: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
+) -> torch.Tensor:
+    """The input projection of one layer; the contract of
+    ``ops/lstm.py:input_gates``: ``xg (2, T, B, 4H)`` f32 from 1 or 2
+    ``(T, B, E_i)`` parts and ``w_ih (2, 4H, E)`` in ``compute_dtype`` and
+    the f32 ``bias (2, 4H)``.
+
+    On the card the product runs on the kernel ``gates_kernel`` names: the
+    tensor-core one through :func:`bilstm_gates_mma` (bf16; its
+    ``.launches`` then counts it), or ``csrc/bilstm_gates.cu`` here.
+    ``kernel="bilstm_gates"`` asks for the latter by name (to time it beside
+    the other)."""
+    x_parts = tuple(x_parts)
+    if not x_parts[0].is_cuda:
+        return input_gates(x_parts, w_ih, bias, compute_dtype)
+    if kernel not in (None, "bilstm_gates", "bilstm_gates_mma"):
+        raise ValueError(f"bilstm_gates: no input-gate kernel named {kernel!r}")
+    cd = compute_dtype
+    name = kernel or gates_kernel([p.shape[-1] for p in x_parts], w_ih.shape[1] // 4, cd)
+    if name == "bilstm_gates_mma":
+        return bilstm_gates_mma(x_parts, w_ih, bias, cd)
+    if cd not in _DTYPE_CODES:
+        raise ValueError(f"bilstm_gates kernel takes float32 or bfloat16, got {cd}")
+    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
     xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if T * B == 0:
         return xg
@@ -1438,6 +1547,43 @@ def bilstm_gates(
 
 
 bilstm_gates.launches = 0
+
+
+def bilstm_gates_mma(
+    x_parts: Sequence[torch.Tensor],
+    w_ih: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The input projection of one layer on the tensor cores
+    (``csrc/bilstm_gates_mma.cu``); the contract of :func:`bilstm_gates`.
+    Takes bfloat16 at every shape ``wide_check`` admits and raises for the
+    rest. Deterministic: the forward and the backward's recompute get the
+    same bits. Its output carries no graph, so under grad mode it refuses an
+    operand that requires grad, on the CPU too."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, bias)
+    if not x_parts[0].is_cuda:
+        return input_gates(x_parts, w_ih, bias, compute_dtype)
+    cd = compute_dtype
+    if cd != torch.bfloat16:
+        raise ValueError(f"bilstm_gates_mma kernel takes bfloat16, got {cd}")
+    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
+    xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if T * B == 0:
+        return xg
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_gates_mma").bilstm_gates_mma(
+            _ptr(x_parts, 0), _ptr(x_parts, 1), E_parts[0],
+            E_parts[1] if len(E_parts) == 2 else 0, w_ih.data_ptr(), bias.data_ptr(),
+            xg.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error("bilstm_gates_mma", err)
+    bilstm_gates_mma.launches += 1
+    return xg
+
+
+bilstm_gates_mma.launches = 0
 
 
 def _wide_operands(xg, lengths, w_hh, cd, what):
@@ -1526,6 +1672,21 @@ def bilstm_fwd_wide_train(
 bilstm_fwd_wide_train.launches = 0
 
 
+def _lite_operands(what, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd):
+    """Checked operands of a lite sweep kernel: ``(dev, T, B, H, G, w_hh)``."""
+    if len(dyf) != len(dyb) or len(dyf) > 2:
+        raise ValueError(
+            f"{what} kernel takes 0-2 dy streams per direction, got {len(dyf)}/{len(dyb)}")
+    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, what)
+    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
+                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
+        _check(name, t, (T, B, H), cd, dev)
+    for name, t in (("dhn", dhn), ("dcn", dcn)):
+        if t is not None:
+            _check(name, t, (2, B, H), torch.float32, dev)
+    return dev, T, B, H, G, w_hh
+
+
 def bilstm_bwd_lite(
     xg: torch.Tensor,
     lengths: torch.Tensor,
@@ -1539,26 +1700,29 @@ def bilstm_bwd_lite(
     dhn: Optional[torch.Tensor],
     dcn: Optional[torch.Tensor],
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """One layer's backward sweep over its input gates; the contract of
     ``ops/lstm.py:bidir_layer_sweep_lite``: returns the masked ``dgates
-    (2, T, B, 4H)`` f32."""
+    (2, T, B, 4H)`` f32.
+
+    On the card the sweep runs the kernel ``lite_kernel`` names for its
+    width and dtype: the tensor-core one through :func:`bilstm_bwd_lite_mma`
+    (bf16 at H = 128 and 256; its ``.launches`` then counts it), or
+    ``csrc/bilstm_bwd_lite.cu`` here. ``kernel="bilstm_bwd_lite"`` asks for
+    the latter by name (to time it beside the other)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
-    if len(dyf) != len(dyb) or len(dyf) > 2:
-        raise ValueError(
-            f"bilstm_bwd_lite kernel takes 0-2 dy streams per direction, "
-            f"got {len(dyf)}/{len(dyb)}")
-    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, "bilstm_bwd_lite")
-    for name, t in (("hs_f", hs_f), ("hs_b", hs_b), ("cs_f", cs_f), ("cs_b", cs_b),
-                    *((f"dy[{k}]", t) for k, t in enumerate(dyf + dyb))):
-        _check(name, t, (T, B, H), cd, dev)
-    for name, t in (("dhn", dhn), ("dcn", dcn)):
-        if t is not None:
-            _check(name, t, (2, B, H), torch.float32, dev)
+    if kernel not in (None, "bilstm_bwd_lite", "bilstm_bwd_lite_mma"):
+        raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
+    if (kernel or lite_kernel(xg.shape[-1] // 4, cd)) == "bilstm_bwd_lite_mma":
+        return bilstm_bwd_lite_mma(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                                   dhn, dcn, cd)
+    dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
+                                           cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dgates
@@ -1581,6 +1745,56 @@ def bilstm_bwd_lite(
 bilstm_bwd_lite.launches = 0
 
 
+def bilstm_bwd_lite_mma(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """One layer's backward sweep over its input gates on the tensor cores
+    (``csrc/bilstm_bwd_lite_mma.cu``); the contract of
+    :func:`bilstm_bwd_lite`. Takes the widths ``lite_mma_check`` takes
+    (bfloat16, H = 128 and 256) and raises for the rest; the row tile is
+    ``wide_plan("lite_mma", ...)``'s. Its output carries no graph, so under
+    grad mode it refuses an operand that requires grad, on the CPU too."""
+    dyf, dyb = tuple(dyf), tuple(dyb)
+    cd = compute_dtype
+    _no_graph(xg, w_hh, hs_f, hs_b, cs_f, cs_b, *dyf, *dyb)
+    if not xg.is_cuda:
+        return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                                      dhn, dcn, cd)
+    lite_mma_check(xg.shape[-1] // 4, cd)
+    dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite_mma", xg, lengths, w_hh, hs_f,
+                                           hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+    dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return dgates
+    rows, tiles, smem = wide_plan("lite_mma", B, G, H,
+                                  _max_clusters("bilstm_bwd_lite_mma", cd, H, dev))
+    with torch.cuda.device(dev):
+        err = _kernels("bilstm_bwd_lite_mma").bilstm_bwd_lite_mma(
+            rows, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+            _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
+            _opt_ptr(dhn), _opt_ptr(dcn), dgates.data_ptr(), T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error("bilstm_bwd_lite_mma", err)
+    bilstm_bwd_lite_mma.launches += 1
+    return dgates
+
+
+bilstm_bwd_lite_mma.launches = 0
+
+
 # ------------------------------------------------------------ one layer, routed
 def layer_fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states=False):
     """One layer's forward on its route (``layer_route``): the eval
@@ -1599,9 +1813,9 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
               dyf, dyb, dhn, dcn, compute_dtype):
     """One layer's backward sweep on its route, with the contract of
     ``bilstm_bwd``: ``(dxf, dxb, dgc, dbias)``. The wide route recomputes
-    the input gates with the forward's kernel (the same f32 values), runs
-    the lite sweep, and forms dx, ``dgc`` and ``dbias`` with
-    ``ops/lstm.py:input_grads``."""
+    the input gates with the forward's kernel (the same dispatch, so the
+    same f32 bits), runs the lite sweep, and forms dx, ``dgc`` and ``dbias``
+    with ``ops/lstm.py:input_grads``."""
     x_parts = tuple(x_parts)
     E_parts = [p.shape[-1] for p in x_parts]
     if layer_route(E_parts, hs_f.shape[-1], compute_dtype) == "resident":

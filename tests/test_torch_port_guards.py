@@ -48,7 +48,7 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
-                       "lstm_recurrence_bwd_f32"}
+                       "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -64,11 +64,18 @@ def test_every_kernel_source_is_built_and_bound():
     for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
+                      ("bilstm_gates_mma", "mma_bf16("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
+    # the tensor-core lite sweep keeps the 8-block cluster split: both of its
+    # products on mma.sync (the dh product through ldmatrix.trans), the
+    # partial sums exchanged through distributed shared memory
+    text = (_build.CSRC / "bilstm_bwd_lite_mma.cu").read_text().rsplit("#include", 1)[1]
+    assert text.count("mma_bf16(") == 2 and "ldmatrix_x4_trans(" in text
+    assert "map_shared_rank(" in text and "launch_wide(" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the

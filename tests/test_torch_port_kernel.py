@@ -962,6 +962,151 @@ def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
     assert [f.launches for f in wrappers] == before
 
 
+# ------------- the tensor-core input gates and lite sweep (bf16, wide route)
+@pytest.mark.parametrize(
+    "E_parts,H,dtype,kernel",
+    [
+        ([256], 256, torch.bfloat16, "bilstm_gates_mma"),
+        ([256, 256], 256, torch.bfloat16, "bilstm_gates_mma"),
+        ([128], 128, torch.bfloat16, "bilstm_gates_mma"),
+        ([128, 128], 128, torch.bfloat16, "bilstm_gates_mma"),
+        ([16, 32], 32, torch.bfloat16, "bilstm_gates_mma"),  # every shape wide_check admits
+        ([96], 96, torch.bfloat16, "bilstm_gates_mma"),
+        ([256], 256, torch.float32, "bilstm_gates"),          # f32 keeps the CUDA-core kernel
+        ([128, 128], 128, torch.float32, "bilstm_gates"),
+        ([200], 256, torch.bfloat16, None),   # a part not a multiple of 16
+        ([256], 80, torch.bfloat16, None),    # H % 32 != 0
+        ([256], 256, torch.float16, None),
+    ],
+)
+def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="bilstm (wide|gates) kernels"):
+            lstm_cuda.gates_kernel(E_parts, H, dtype)
+        return
+    assert lstm_cuda.gates_kernel(E_parts, H, dtype) == kernel
+
+
+@pytest.mark.parametrize(
+    "H,dtype,kernel",
+    [
+        (256, torch.bfloat16, "bilstm_bwd_lite_mma"),
+        (128, torch.bfloat16, "bilstm_bwd_lite_mma"),
+        (256, torch.float32, "bilstm_bwd_lite"),   # f32 keeps the CUDA-core sweep
+        (128, torch.float32, "bilstm_bwd_lite"),
+        (192, torch.bfloat16, "bilstm_bwd_lite"),  # m16 tiles not even over 8 warps
+        (96, torch.bfloat16, "bilstm_bwd_lite"),   # no whole 8-unit groups a block
+        (32, torch.bfloat16, "bilstm_bwd_lite"),
+        (80, torch.bfloat16, None),
+        (288, torch.float32, None),
+        (256, torch.float16, None),
+    ],
+)
+def test_lite_kernel_by_width_and_dtype(H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="; bilstm_bwd_lite_mma kernel takes bfloat16"):
+            lstm_cuda.lite_kernel(H, dtype)
+        return
+    assert lstm_cuda.lite_kernel(H, dtype) == kernel
+
+
+def _route_without_the_wide_dispatch(E_parts, H, dtype):
+    """``layer_route``'s rule, written out: resident where the resident
+    forward and sweep dispatches take the layer, else wide where
+    ``wide_check`` passes, else None."""
+    try:
+        lstm_cuda.fwd_kernel(E_parts, H, dtype)
+        lstm_cuda.sweep_kernel(E_parts, H, dtype)
+        return "resident"
+    except ValueError:
+        pass
+    try:
+        lstm_cuda.wide_check(H, E_parts)
+        return "wide"
+    except ValueError:
+        return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_wide_kernels_change_no_route(dtype):
+    """The input-gate and lite-sweep dispatches pick kernels inside the wide
+    route and never move a layer between routes: every (E_parts, H) keeps
+    its route, every wide layer has an input-gate and a sweep kernel, and
+    the scaled configuration's layers take the tensor-core ones in bf16."""
+    for H in range(8, 272, 8):
+        for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
+                        [32, 32], [64, 64], [128, 128], [256, 256]):
+            try:
+                route = lstm_cuda.layer_route(E_parts, H, dtype)
+            except ValueError:
+                route = None
+            assert route == _route_without_the_wide_dispatch(E_parts, H, dtype), (E_parts, H)
+            if route != "wide":
+                continue
+            gates, lite = lstm_cuda.gates_kernel(E_parts, H, dtype), lstm_cuda.lite_kernel(H, dtype)
+            bf16 = dtype == torch.bfloat16
+            assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates")
+            assert lite == ("bilstm_bwd_lite_mma" if bf16 and H in (128, 256)
+                            else "bilstm_bwd_lite")
+    for E_parts in ([256], [256, 256]):
+        assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
+
+
+def test_lite_mma_plan_fills_the_card_in_fewest_waves():
+    """The tensor-core sweep's shared memory per row tile, and its plan at
+    the scaled train shapes with 15 clusters on the card at once: 400 rows
+    in 5 groups of 80 (layer 0) and in 1 group (the stacked layers)."""
+    fifteen = lambda R, smem: 15  # noqa: E731
+    # H = 256, 32-row tile: the bf16 W_hh slice (128 rows of 256 + 8), two
+    # h_prev buffers, the f32 xg slice (128 + 4 a row), c_prev and two dy
+    # streams, the bf16 dgates tile (128 + 8), two f32 partial buffers of
+    # 256 units x 40
+    assert lstm_cuda.wide_smem("lite_mma", 256, 32) == (
+        128 * 264 * 2 + 2 * 32 * 264 * 2 + 32 * 132 * 4 + 3 * 32 * 32 * 2 + 32 * 136 * 2
+        + 2 * 256 * 40 * 4) == 215040
+    assert lstm_cuda.wide_smem("lite_mma", 256, 40) == 231424 <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_smem("lite_mma", 256, 80) > lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_smem("lite_mma", 128, 80) == 208384
+    # G = 5: 16-row tiles make 25 tiles a direction (4 waves); 32 and 40 make
+    # 15 and 10 (2 waves each): the smaller tile wins
+    assert lstm_cuda.wide_plan("lite_mma", 400, 5, 256, fifteen) == (32, 15, 215040)
+    assert lstm_cuda.wide_plan("lite_mma", 400, 1, 256, fifteen) == (32, 13, 215040)
+    # H = 128: 80-row tiles fit, one group each: 10 clusters, one wave
+    assert lstm_cuda.wide_plan("lite_mma", 400, 5, 128, fifteen)[:2] == (80, 5)
+    # a small batch: the smallest tile of the one wave
+    assert lstm_cuda.wide_plan("lite_mma", 40, 1, 256, fifteen)[:2] == (16, 3)
+    # the rows of every tile the plan may take are whole n8 tiles
+    assert all(r % 8 == 0 for r in lstm_cuda.LITE_MMA_ROWS)
+
+
+def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        6, 4, [128], 128, 2, cd, torch.device("cpu"))
+    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_bwd_lite_mma)
+    before = [f.launches for f in wrappers]
+    want = input_gates(parts, w_ih, bias, cd)
+    for got in (lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd),
+                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")):
+        assert torch.equal(got, want)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(want, lengths, w_hh, cd, with_states=True)
+    args = (want, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
+    ref = bidir_layer_sweep_lite(*args)
+    for got in (lstm_cuda.bilstm_bwd_lite_mma(*args),
+                lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")):
+        assert torch.equal(got, ref)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_gates_mma(parts, w_ih.clone().requires_grad_(), bias, cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_lite_mma(want.clone().requires_grad_(), *args[1:])
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_lite_mma(*args[:3], hs_f.clone().requires_grad_(), *args[4:])
+    with torch.no_grad():
+        lstm_cuda.bilstm_gates_mma(parts, w_ih.clone().requires_grad_(), bias, cd)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -1064,7 +1209,9 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
 def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Input gates, the cluster forward (both variants), the lite sweep
     and wgrad against their plain versions. Groups of 12, 15 and 8 rows
-    leave short row tiles inside each group."""
+    leave short row tiles inside each group. In bf16 the gates and (at
+    H = 128 and 256) the sweep are the tensor-core kernels, counted on
+    their own wrappers, and the CUDA-core ones are held by name too."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -1077,10 +1224,15 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
                 1.0, float(b.float().abs().max()))
 
     wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma)
     before = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
     close([xg], [input_gates(parts, w_ih, bias, dtype)])
+    gates_mma = lstm_cuda.gates_kernel(E_parts, H, dtype) == "bilstm_gates_mma"
+    lite_mma = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma"
+    assert gates_mma == (dtype == torch.bfloat16)
+    assert lite_mma == (dtype == torch.bfloat16 and H in (128, 256))
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
     close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
@@ -1089,11 +1241,68 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
     close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
+    if gates_mma:
+        close([lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")],
+              [input_gates(parts, w_ih, bias, dtype)])
+    if lite_mma:
+        close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [dgates])
     dgc = dgates.to(dtype)
     close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
           bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        1, 1, 1, 1, int(gates_mma), int(lite_mma)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B,rows", [(256, 5, 60, 16), (256, 5, 60, 32), (256, 1, 70, 40),
+                                        (256, 3, 27, 32), (128, 2, 30, 80), (128, 1, 20, 40),
+                                        (128, 5, 60, 16)])
+def test_lite_mma_row_tiles_match_plain_on_card(cuda_device, monkeypatch, H, G, B, rows, T):
+    """The tensor-core lite sweep at each row tile it is built for (pinned
+    with monkeypatch on the plan's candidates), with 0-2 dy streams, with and
+    without final-state cotangents; groups of 12, 70, 9, 15, 20 rows leave
+    short tiles, and lengths of 0, 1 and T."""
+    monkeypatch.setattr(lstm_cuda, "LITE_MMA_ROWS", (rows,))
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    for ny, final in ((2, True), (1, False), (0, True)):
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+                dhn if final else None, dcn if final else None, cd)
+        want = bidir_layer_sweep_lite(*args)
+        got = lstm_cuda.bilstm_bwd_lite_mma(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 3e-2 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_forward_and_backward_input_gates_agree_bitwise_on_card(cuda_device, monkeypatch):
+    """The wide route forms the input gates in the forward and again in the
+    backward (``layer_fwd``, ``layer_bwd``): in bf16 both are the tensor-core
+    kernel on the same operands, and the two agree bit for bit."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(20, 30, [128, 128], 128, 1, cd,
+                                                                cuda_device)
+    seen = []
+    gates = lstm_cuda.bilstm_gates
+
+    def record(*args, **kwargs):
+        seen.append(gates(*args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(lstm_cuda, "bilstm_gates", record)
+    before = lstm_cuda.bilstm_gates_mma.launches
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd,
+                                                       with_states=True)
+    lstm_cuda.layer_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:1], dy[2:3],
+                        dhn, dcn, cd)
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and lstm_cuda.bilstm_gates_mma.launches == before + 2
+    assert torch.equal(seen[0], seen[1])
 
 
 @pytest.mark.cuda
