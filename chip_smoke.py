@@ -33,17 +33,17 @@ exits non-zero with no result):
    E = 2 x 64) in f32 and bf16, lengths mixing 0, 1, T, random values and
    per-group maxima: in bf16 the forward, the sweep and wgrad are the
    tensor-core kernels (``bilstm_layer_fwd(_train)_mma``,
-   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the forward and the
-   sweep are the 3xTF32 tensor-core kernels (``bilstm_layer_fwd(_train)_f32``,
-   ``bilstm_bwd_f32``), and the CUDA-core ones, asked for by name, are held
-   too, and the twins with their products in one tf32 pass are recorded
-   beside them (a control for the f32 tolerance); ragged cases (27 rows in 3
-   groups, T = 1, rows of length 0); ``bilstm_fwd.cu`` (both variants) and
-   ``bilstm_bwd.cu`` at their own main path's shapes (E = H = 80, one
-   layer, 5 groups); then each kernel (in bf16 the new and the old in
-   turns, new, old, old, new, in the same run; in f32 the forwards and the
-   sweeps so)
-   and a PyTorch yardstick
+   ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the forward, the sweep
+   and wgrad are the 3xTF32 tensor-core kernels
+   (``bilstm_layer_fwd(_train)_f32``, ``bilstm_bwd_f32``,
+   ``bilstm_wgrad_f32``), and the CUDA-core ones, asked for by name, are
+   held too, and the twins with their products in one tf32 pass are
+   recorded beside them (a control for the f32 tolerance); ragged cases (27
+   rows in 3 groups, T = 1, rows of length 0); ``bilstm_fwd.cu`` (both
+   variants), ``bilstm_bwd.cu`` and ``bilstm_wgrad.cu`` at their own main
+   path's shapes (E = H = 80, one layer, 5 groups); then each kernel, the
+   new and the old in turns (new, old, old, new, in the same run), and a
+   PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
    bf16, cuBLAS products in the same dtype) timed with CUDA events at full
    lengths, TF32 off; the plain versions are timed once, in the check;
@@ -55,10 +55,11 @@ exits non-zero with no result):
    ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma`` must be > 0 and the
    CUDA-core forward, sweep and wgrad and the f32 tensor-core kernels 0;
    then 2 steps of the same model in f32 (and a profiled one), which must
-   run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and the CUDA-core
-   wgrad and never the CUDA-core forward, and 2 f32 steps and an eval step
-   of a one-layer model at embedding 80, whose forward (both variants) and
-   sweep only ``bilstm_fwd.cu`` and ``bilstm_bwd.cu`` take; then one step's
+   run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and
+   ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2 f32
+   steps and an eval step of a one-layer model at embedding 80, whose
+   forward (both variants), sweep and wgrad only ``bilstm_fwd.cu``,
+   ``bilstm_bwd.cu`` and ``bilstm_wgrad.cu`` take; then one step's
    gradients on the card held against the port's CPU plain path at a small
    size, in f32 (also at embedding 80, one layer) and in bf16;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
@@ -68,24 +69,30 @@ exits non-zero with no result):
    E = 256 with grouped W_hh and a stacked layer at E = 2 x 256) in f32 and
    bf16, at H = 128 (T = 300), and the resident forward, sweep and wgrad at
    H = 32 (T = 300); in bf16 the input gates are ``bilstm_gates_mma``, the
-   lite sweep ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, and
-   the CUDA-core kernels, asked for by name, are held too; the input gates
-   computed twice must agree bit for bit (the backward recomputes them);
-   ragged cases of the two tensor-core kernels (27 rows in 3 groups and in
-   1, T = 1 and 5, every row tile of the sweep); then each timed with CUDA
-   events at full lengths beside its plain version and a PyTorch yardstick
-   in the same dtype (cuBLAS ``addmm``, in bf16 with ``out_dtype=float32``;
-   cuDNN), TF32 off; in bf16 the gates, the sweep and wgrad new, old, old,
-   new, and the sweep at each of its row tiles;
+   wide forward ``bilstm_fwd_wide(_train)_mma``, the lite sweep
+   ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 wgrad is
+   ``bilstm_wgrad_f32``, and the CUDA-core kernels, asked for by name, are
+   held too; the input gates computed twice must agree bit for bit (the
+   backward recomputes them), and so must the tensor-core forward's hs in
+   its two variants; ragged cases of the tensor-core kernels (27 rows in 3
+   groups and in 1, T = 1 and 5, every row tile of the forward and the
+   sweep; wgrad in both dtypes); then each timed with CUDA events at full
+   lengths beside its plain version and a PyTorch yardstick in the same
+   dtype (cuBLAS ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32
+   off; in bf16 the gates, the forward (both variants), the sweep and wgrad
+   new, old, old, new, and the forward and the sweep at each of their row
+   tiles; in f32 wgrad new, old, old, new;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
-   ``bilstm_gates_mma``, the wide forward, ``bilstm_bwd_lite_mma`` and
-   ``bilstm_wgrad_mma`` and never through the resident kernels or the
-   CUDA-core gates, sweep and wgrad, a profiled step and peak memory; then
-   one step's gradients at embedding 256 and 3 layers held against the CPU
-   plain path in f32 (which must run ``bilstm_gates.cu`` and
-   ``bilstm_bwd_lite.cu``: their main path) and in bf16 (which must run
+   ``bilstm_gates_mma``, ``bilstm_fwd_wide(_train)_mma``,
+   ``bilstm_bwd_lite_mma`` and ``bilstm_wgrad_mma`` and never through the
+   resident kernels or the CUDA-core gates, forward, sweep and wgrad, a
+   profiled step and peak memory; then one step's gradients at embedding
+   256 and 3 layers held against the CPU plain path in f32, with an eval
+   step after it (which must run ``bilstm_gates.cu``,
+   ``bilstm_fwd_wide.cu`` in both variants and ``bilstm_bwd_lite.cu``:
+   their main path, and ``bilstm_wgrad_f32``) and in bf16 (which must run
    the tensor-core ones);
 8. recurrence_kernel — the time-major recurrence op's kernels (forward,
    sweep, weight gradient) against their plain versions at T = 1500,
@@ -122,7 +129,7 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (twenty-three kernels, each with launches > 0 on
+11. the ``kernels`` line (twenty-six kernels, each with launches > 0 on
     a main path), the card's name and power limit, and the result.
 
 The last line of standard output is
@@ -175,10 +182,13 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
+        FWD_WIDE_MMA_ROWS,
+        FWD_WIDE_MMA_WIDTHS,
         GATES_MMA_SMEM,
         LITE_MMA_ROWS,
         REC_WGRAD_MMA_SMEM,
         SMEM_LIMIT,
+        WGRAD_F32_SMEM,
         WGRAD_MMA_SMEM,
         bwd_f32_plan,
         bwd_launch_plan,
@@ -221,12 +231,16 @@ def phase_build() -> dict:
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
+    smem["wgrad_f32"] = WGRAD_F32_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     smem["gates_mma"] = GATES_MMA_SMEM
     for H in (128, E_SCALED):
         for rows in LITE_MMA_ROWS:
             if wide_smem("lite_mma", H, rows) <= SMEM_LIMIT:
                 smem[f"bwd_lite_mma H={H} rows={rows}"] = wide_smem("lite_mma", H, rows)
+    for H in FWD_WIDE_MMA_WIDTHS:
+        for rows in FWD_WIDE_MMA_ROWS:
+            smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -659,7 +673,7 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 
 
 # the f32 kernels on the tensor cores: three tf32 products for each f32 one
-TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32")
+TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -768,7 +782,7 @@ def ragged_fwd_wgrad_check(dev) -> list:
     """The tensor-core forwards (both variants) and wgrad against their
     twins where no size is round: 27 rows in 3 weight groups of 9 (a short
     tile in each group), T = 1, rows of length 0, both layer shapes; the
-    forward and wgrad in bf16, the 3xTF32 forward in f32."""
+    forward and wgrad in bf16, the 3xTF32 forward and wgrad in f32."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_wgrad
 
@@ -780,6 +794,7 @@ def ragged_fwd_wgrad_check(dev) -> list:
         bf16 = cd == torch.bfloat16
         fwd_eval, fwd_train = ((L.bilstm_layer_fwd_mma, L.bilstm_layer_fwd_train_mma) if bf16
                                else (L.bilstm_layer_fwd_f32, L.bilstm_layer_fwd_train_f32))
+        wgrad = L.bilstm_wgrad_mma if bf16 else L.bilstm_wgrad_f32
         g = torch.Generator(device=dev).manual_seed(SEED + 75 + i)
 
         def u(*shape, scale=1.0):
@@ -796,15 +811,15 @@ def ragged_fwd_wgrad_check(dev) -> list:
         res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, fwd_train(*args), want)}
         res.update({f"eval_{n}": rel_err(a, b, TOL[cd])
                     for n, a, b in zip(names, fwd_eval(*args), want[:4])})
-        if bf16:
-            hs_f, hs_b = want[:2]
-            dgc = u(2, T, B, 4 * H).to(cd)
-            ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
-            got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
-            res["dW_ih"], res["dW_hh"] = (rel_err(got[0], ref[0], TOL[cd]),
-                                          rel_err(got[1], ref[1], TOL[cd]))
+        hs_f, hs_b = want[:2]
+        dgc = u(2, T, B, 4 * H).to(cd)
+        ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+        got = wgrad(dgc, parts, hs_f, hs_b, G)
+        res["dW_ih"], res["dW_hh"] = (rel_err(got[0], ref[0], TOL[cd]),
+                                      rel_err(got[1], ref[1], TOL[cd]))
         torch.cuda.synchronize()
-        check = {"kernel": "bilstm_fwd_mma, bilstm_wgrad_mma" if bf16 else "bilstm_fwd_f32",
+        check = {"kernel": ("bilstm_fwd_mma, bilstm_wgrad_mma" if bf16
+                            else "bilstm_fwd_f32, bilstm_wgrad_f32"),
                  "B": B, "G": G, "T": T, "H": H,
                  "E_parts": E_parts, "dtype": str(cd).replace("torch.", ""),
                  "max_abs_err": {n: e for n, (e, _) in res.items()},
@@ -817,26 +832,30 @@ def ragged_fwd_wgrad_check(dev) -> list:
 
 
 def embedding_80_kernels(dev) -> dict:
-    """``bilstm_fwd.cu`` (both variants) and ``bilstm_bwd.cu`` at the shapes
-    of their main path, the f32 steps (and an eval step) of a one-layer
-    model at embedding 80 (E = H = 80, 5 weight groups, one dy stream a
-    direction, 400 rows, T = 1500; the tensor-core kernels take H <= 64):
-    held against their plain twins with the main path's lengths (groups at
-    0, 1 and T), then timed at full lengths beside the twins (timed once,
-    in the check), their bounds at the CUDA cores' f32 rate and cuDNN's
-    one-layer training forward, inference forward and backward for the
-    input, TF32 off. One dict per kernel: "fwd", "fwd_eval", "bwd"."""
+    """``bilstm_fwd.cu`` (both variants), ``bilstm_bwd.cu`` and
+    ``bilstm_wgrad.cu`` at the shapes of their main path, the f32 steps (and
+    an eval step) of a one-layer model at embedding 80 (E = H = 80, 5 weight
+    groups, one dy stream a direction, 400 rows, T = 1500; the tensor-core
+    kernels take H <= 64, and H % 32 == 0 for wgrad): held against their
+    plain twins with the main path's lengths (groups at 0, 1 and T), then
+    timed at full lengths beside the twins (timed once, in the check), their
+    bounds at the CUDA cores' f32 rate and cuDNN's one-layer training
+    forward, inference forward and backward for the input, and cuBLAS's
+    products for wgrad, TF32 off. One dict per kernel: "fwd", "fwd_eval",
+    "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
-    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     E_parts, H, G, cd = [80], 80, G_TRAIN, torch.float32
-    kernels = (L.fwd_kernel(E_parts, H, cd), L.sweep_kernel(E_parts, H, cd))
-    if kernels != ("bilstm_fwd", "bilstm_bwd"):
-        raise AssertionError(f"embedding 80's forward and sweep are {kernels}")
+    kernels = (L.fwd_kernel(E_parts, H, cd), L.sweep_kernel(E_parts, H, cd),
+               L.wgrad_kernel(E_parts, H, cd))
+    if kernels != ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"):
+        raise AssertionError(f"embedding 80's forward, sweep and wgrad are {kernels}")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G, "E_parts": E_parts, "ny": 1,
              "dtype": "float32", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k: {"kernel": name, **shape} for k, name in (
-        ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"), ("bwd", "bilstm_bwd"))}
+        ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"), ("bwd", "bilstm_bwd"),
+        ("wgrad", "bilstm_wgrad"))}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     work = train_layer_work(sum(E_parts), H, 4, 1)
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
@@ -850,31 +869,38 @@ def embedding_80_kernels(dev) -> dict:
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
                 cd)
         calls["bwd"] = lambda: L.bilstm_bwd(*args)
+        dgc = calls["bwd"]()[2]
+        calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
         if full:
             for k, call in calls.items():
                 out[k]["ms"] = time_ms(call, 3)
                 add_bounds(out[k], {k: work[k]}, cd)
+            out["wgrad"]["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
         else:
             want, out["fwd"]["plain_ms"] = timed_once(
                 lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
             _, out["fwd_eval"]["plain_ms"] = timed_once(
                 lambda: L.bilstm_layer_fwd_plain(*fwd_args))
             ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+            ref_w, out["wgrad"]["plain_ms"] = timed_once(
+                lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
             res = {"fwd": {n: rel_err(a, b, TOL[cd])
                            for n, a, b in zip(names, calls["fwd"](), want)},
                    "fwd_eval": {n: rel_err(a, b, TOL[cd])
                                 for n, a, b in zip(names, calls["fwd_eval"](), want)},
                    "bwd": {n: rel_err(a, b, TOL[cd])
                            for n, a, b in zip(sweep_names(*ref[:2]), flat(calls["bwd"]()),
-                                              flat(ref))}}
+                                              flat(ref))},
+                   "wgrad": {n: rel_err(a, b, TOL[cd])
+                             for n, a, b in zip(("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
             torch.cuda.synchronize()
             for k, r in res.items():
                 out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
                 if not all(ok for _, ok in r.values()):
                     emit({"phase": "train_kernel", "failed": out[k]})
                     raise AssertionError(f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
-            del want, ref, res
-        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls
+            del want, ref, ref_w, res
+        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, dgc
     lib = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)
     for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
                    ("bwd", "cudnn_bwd_data_ms")):
@@ -899,8 +925,8 @@ def phase_train_kernel(dev) -> dict:
     checks = []
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     # the kernels the dispatch names: bf16 the tensor-core ones; f32 the
-    # 3xTF32 tensor-core forward and sweep and the CUDA-core wgrad
-    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32", "bilstm_wgrad"),
+    # 3xTF32 tensor-core forward, sweep and wgrad
+    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32", "bilstm_wgrad_f32"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the plain versions (Python loops over T) are timed here, once each
     plain_ms = {dtype: {"fwd": 0.0, "fwd_eval": 0.0, "bwd": 0.0, "wgrad": 0.0}
@@ -970,10 +996,14 @@ def phase_train_kernel(dev) -> dict:
             dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             res["dW_ih"], res["dW_hh"] = (err(dw_ih, ref_w[0], TOL[dtype]),
                                           err(dw_hh, ref_w[1], TOL[dtype]))
-            if bf16:
-                dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-                res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (
-                    err(dw_ih, ref_w[0], TOL[dtype]), err(dw_hh, ref_w[1], TOL[dtype]))
+            if not bf16:
+                scaled["wgrad_scaled_err"] = max(scaled_err(dw_ih, ref_w[0]),
+                                                 scaled_err(dw_hh, ref_w[1]))
+            # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in
+            # f32); the CUDA-core one by name
+            dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+            res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (
+                err(dw_ih, ref_w[0], TOL[dtype]), err(dw_hh, ref_w[1], TOL[dtype]))
             torch.cuda.synchronize()
             check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
                      "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
@@ -996,10 +1026,8 @@ def phase_train_kernel(dev) -> dict:
         t = {f"{k}_ms": 0.0 for k in keys}
         t["wgrad_library_ms"] = 0.0
         t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items() if v})
-        # in turns with the CUDA-core kernel: every kernel in bf16; in f32 the
-        # forward (both variants) and the sweep
-        turns = keys if bf16 else ["fwd", "fwd_eval", "bwd"]
-        t.update({f"{k}_{what}": 0.0 for k in turns for what in ("ms_again", "cuda_core_ms")})
+        # every kernel in turns with the CUDA-core one, in both dtypes
+        t.update({f"{k}_{what}": 0.0 for k in keys for what in ("ms_again", "cuda_core_ms")})
         work = {k: [0.0, 0.0] for k in keys}
         for i, (E_parts, G) in enumerate(layers):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
@@ -1021,14 +1049,11 @@ def phase_train_kernel(dev) -> dict:
                                                  kernel="bilstm_wgrad")),
             }
             for k, (new, old) in calls.items():
-                if k in turns:
-                    # new, old, old, new: both kernels in one run, on one card
-                    a, b, c = in_turns(new, old, 5 if k != "bwd" else 3)
-                    t[f"{k}_ms"] += a
-                    t[f"{k}_ms_again"] += b
-                    t[f"{k}_cuda_core_ms"] += c
-                else:
-                    t[f"{k}_ms"] += time_ms(new, 5)
+                # new, old, old, new: both kernels in one run, on one card
+                a, b, c = in_turns(new, old, 5 if k != "bwd" else 3)
+                t[f"{k}_ms"] += a
+                t[f"{k}_ms_again"] += b
+                t[f"{k}_cuda_core_ms"] += c
             t["wgrad_library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 5)
             for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
                 work[k][0] += f
@@ -1036,7 +1061,8 @@ def phase_train_kernel(dev) -> dict:
             del parts, hs_f, hs_b, cs_f, cs_b, dgc, fwd_args, bwd_args, calls
         add_bounds(t, work, dtype, {"fwd": kernel_peak(dtype, picked[dtype][0]),
                                     "fwd_eval": kernel_peak(dtype, picked[dtype][0]),
-                                    "bwd": kernel_peak(dtype, picked[dtype][1])})
+                                    "bwd": kernel_peak(dtype, picked[dtype][1]),
+                                    "wgrad": kernel_peak(dtype, picked[dtype][2])})
         t["kernels"] = picked[dtype]
         # the yardstick the port never calls: cuDNN in the same dtype
         t.update(cudnn_stack_times(dev, dtype))
@@ -1084,6 +1110,9 @@ def train_counters():
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
             "bilstm_bwd_lite_mma": L.bilstm_bwd_lite_mma,
+            "bilstm_fwd_wide_train_mma": L.bilstm_fwd_wide_train_mma,
+            "bilstm_fwd_wide_mma": L.bilstm_fwd_wide_mma,
+            "bilstm_wgrad_f32": L.bilstm_wgrad_f32,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
@@ -1124,13 +1153,15 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                 "fwd_cuda_core": "bilstm_layer_fwd_kernel",
                 "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_kernel",
                 "sweep_cuda_core": "bilstm_bwd_kernel",
-                "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_cuda_core": "bilstm_wgrad_kernel"})
+                "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_f32": "bilstm_wgrad_f32_kernel",
+                "wgrad_cuda_core": "bilstm_wgrad_kernel"})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite train loss: {losses}, eval {eval_loss}")
     new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
            "bilstm_wgrad_mma")
     old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
-           "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32")
+           "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
+           "bilstm_layer_fwd_train_f32")
     missing = [n for n in new if launches[n] <= 0]
     ran_old = [n for n in old if launches[n] != 0]
     if missing or ran_old:
@@ -1139,17 +1170,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
             f"{ran_old}")
     del trainer, net
     f32 = f32_steps(dev, batches,
-                    ("bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_wgrad"),
+                    ("bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_wgrad_f32"),
                     ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma",
-                     "bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd"))
-    # bilstm_fwd.cu and bilstm_bwd.cu keep the resident shapes the
-    # tensor-core kernels do not take: a one-layer f32 model at embedding 80
-    # (H > 64) runs its forward (both variants: an eval step follows the
-    # train steps) and its sweep
+                     "bilstm_wgrad", "bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd"))
+    # bilstm_fwd.cu, bilstm_bwd.cu and bilstm_wgrad.cu keep the resident
+    # shapes the tensor-core kernels do not take: a one-layer f32 model at
+    # embedding 80 (H > 64, H % 32 != 0) runs its forward (both variants: an
+    # eval step follows the train steps), its sweep and its wgrad
     f32_cuda_core = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
                                              "bilstm_bwd", "bilstm_wgrad"),
                               ("bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_layer_fwd_f32",
-                               "bilstm_layer_fwd_train_f32"), eval_step=True,
+                               "bilstm_layer_fwd_train_f32", "bilstm_wgrad_f32"), eval_step=True,
                               embedding_size=80, rnn_num_layers=1)
     grad_check = train_grad_check(dev)
     grad_check_80 = train_grad_check(dev, embedding_size=80, rnn_num_layers=1)
@@ -1204,13 +1235,15 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, **widths) -
                         "lstm_recurrence_fwd_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel", "lstm_recurrence_bwd_kernel"),
-                "wgrad": ("bilstm_wgrad_kernel", "lstm_recurrence_wgrad_kernel"),
+                "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
+                          "lstm_recurrence_wgrad_kernel"),
                 "gemm": ("gemm", "nvjet", "xmma")})
     return {"dtype": "float32", "steps": steps, "eval_step": eval_step, **widths,
             "step_ms": step_ms, "losses": losses, "launches": launches, "step_profile": profile}
 
 
-def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
+def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False,
+                     **widths) -> dict:
     """One step's gradients on the card (the kernels) against the port's CPU
     plain path: same seeded weights and batch, every dropout rate 0;
     ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
@@ -1219,14 +1252,17 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
     bf16: 2^-7 x max(1, max|grad|): the streams (hs, cs, dgc, dx) are bf16
     on both sides and the kernels sum in another order, so a stream value
     may land one bf16 ulp (2^-8 relative) apart, and the tensor-core sweep
-    takes its sigmoid and tanh from ex2 and a fast reciprocal. The card's
-    step is a main path of its own: the launch counts are set to 0 just
-    before it and read just after (``launches``)."""
+    takes its sigmoid and tanh from ex2 and a fast reciprocal. With
+    ``eval_step``, an eval step of the same model on the same batch follows
+    the backward (no grad: the eval-variant forwards), and its loss is held
+    to the same tolerance. The card's steps are a main path of their own:
+    the launch counts are set to 0 just before them and read just after
+    (``launches``)."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
 
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     batch = quintuplet_batch(np.random.default_rng(SEED + 1), pairs, T)
-    grads = {}
+    grads, eval_losses = {}, {}
     counters = train_counters()
     for device in (dev, torch.device("cpu")):
         net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
@@ -1239,6 +1275,10 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
                 fn.launches = 0
         loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
         loss.backward()
+        if eval_step:
+            with torch.no_grad():
+                eval_losses[device.type] = float(net.step(
+                    tb, torch.Generator(device=device).manual_seed(0), train=False)[0])
         if device == dev:
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
@@ -1253,8 +1293,13 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, **widths) -> dict:
     if set(grads["cpu"]) != set(grads["cuda"]) or not any(
             n.startswith("encoder.lstm.") for n in grads["cuda"]):
         raise AssertionError("the card's step did not reach the same parameters")
+    extra = {}
+    if eval_step:
+        extra["eval_loss_err"] = abs(eval_losses["cuda"] - eval_losses["cpu"])
+        if not extra["eval_loss_err"] <= tol * max(1.0, abs(eval_losses["cpu"])):
+            raise AssertionError(f"the card's eval loss differs from the CPU's: {eval_losses}")
     return {"pairs": pairs, "T": T, "dtype": str(dtype).replace("torch.", ""),
-            "params": len(errs), **widths, "max_abs_err": max(errs.values()),
+            "params": len(errs), **widths, **extra, "max_abs_err": max(errs.values()),
             "tol": f"{tol} x max(1, max|grad|)",
             "launches": {n: v for n, v in launches.items() if v}}
 
@@ -1312,9 +1357,20 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
     res.update({f"train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
-    got = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype)
-    res.update({f"eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
-    del got
+    ev = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype)
+    res.update({f"eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, ev, want)})
+    if L.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma":
+        # the dispatch took the tensor-core forward: both variants give the
+        # same hs bits; the CUDA-core kernel by name
+        res["eval_vs_train_hs"] = (
+            max(float((a.float() - b.float()).abs().max()) for a, b in zip(ev[:2], got[:2])),
+            all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
+        del got, ev
+        got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
+        res.update({f"cuda_core_train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
+        ev = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
+        res.update({f"cuda_core_eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, ev, want)})
+    del got, ev
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
@@ -1329,11 +1385,11 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
     ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
     res["dW_ih"], res["dW_hh"] = rel_err(got[0], ref[0], tol), rel_err(got[1], ref[1], tol)
-    if dtype == torch.bfloat16:
-        # the dispatch took the tensor-core wgrad; the CUDA-core one by name
-        got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-        res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(got[0], ref[0], tol),
-                                                          rel_err(got[1], ref[1], tol))
+    # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in f32); the
+    # CUDA-core one by name
+    got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+    res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(got[0], ref[0], tol),
+                                                      rel_err(got[1], ref[1], tol))
     torch.cuda.synchronize()
     return res
 
@@ -1376,11 +1432,11 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
     # CUDA-core one by name
     res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
         names, L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"), want)})
-    if dtype == torch.bfloat16:
-        # the dispatch took the tensor-core wgrad; the CUDA-core one by name
-        old = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-        res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(old[0], ref[2], tol),
-                                                          rel_err(old[1], ref[3], tol))
+    # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in f32); the
+    # CUDA-core one by name
+    old = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
+    res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(old[0], ref[2], tol),
+                                                      rel_err(old[1], ref[3], tol))
     torch.cuda.synchronize()
     return res
 
@@ -1431,13 +1487,15 @@ def row4_timings(dev, T=300) -> dict:
                 lambda: torch.autograd.grad(lstm(x)[0], [x, *lstm.parameters()], dy), 3)
             t["library_ms"] += full_ms - fwd_ms
             route = L.layer_route(E_parts, H, dtype)
+            wgrad_peak = kernel_peak(dtype, L.wgrad_kernel(E_parts, H, dtype))
             if route == "wide":
                 w = wide_layer_work(sum(E_parts), H, G, size, len(dyf), T=T)
-                peaks = dict.fromkeys(("gates", "lite", "wgrad"), kernel_peak(dtype))
+                peaks = {"gates": kernel_peak(dtype), "lite": kernel_peak(dtype),
+                         "wgrad": wgrad_peak}
             else:
                 w = train_layer_work(sum(E_parts), H, size, len(dyf), T=T, G=G)
                 peaks = {"bwd": kernel_peak(dtype, L.sweep_kernel(E_parts, H, dtype)),
-                         "wgrad": kernel_peak(dtype)}
+                         "wgrad": wgrad_peak}
             work += [(*w[k], peak) for k, peak in peaks.items()]
             t[f"route_{i}"] = route
             del parts, hs_f, hs_b, cs_f, cs_b, args, lstm, x, dy
@@ -1449,26 +1507,29 @@ def row4_timings(dev, T=300) -> dict:
 
 
 def ragged_wide_wgrad_check(dev, H=E_SCALED) -> list:
-    """The tensor-core wgrad against its twin at the scaled width where no
+    """The tensor-core wgrads against their twin at the scaled width where no
     size is round: 27 rows in 3 weight groups of 9 with one input part and
-    in 1 group with two, T = 1 (every h_prev past an end), bf16."""
+    in 1 group with two, T = 1 (every h_prev past an end), in bf16
+    (``bilstm_wgrad_mma``) and f32 (``bilstm_wgrad_f32``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_wgrad
 
-    cd, B, T, out = torch.bfloat16, 27, 1, []
-    for i, (E_parts, G) in enumerate((([H], 3), ([H, H], 1))):
-        g = torch.Generator(device=dev).manual_seed(SEED + 85 + i)
+    B, T, out = 27, 1, []
+    for i, (E_parts, G, cd) in enumerate((([H], 3, torch.bfloat16), ([H, H], 1, torch.bfloat16),
+                                          ([H], 3, torch.float32), ([H, H], 1, torch.float32))):
+        kernel = L.bilstm_wgrad_mma if cd == torch.bfloat16 else L.bilstm_wgrad_f32
+        g = torch.Generator(device=dev).manual_seed(SEED + 85 + i % 2)
         parts = tuple((torch.rand(T, B, e, generator=g, device=dev) * 2 - 1).to(cd)
                       for e in E_parts)
         hs_f, hs_b = ((torch.rand(T, B, H, generator=g, device=dev) * 2 - 1).to(cd)
                       for _ in range(2))
         dgc = (torch.rand(2, T, B, 4 * H, generator=g, device=dev) * 2 - 1).to(cd)
         ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
-        got = L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
+        got = kernel(dgc, parts, hs_f, hs_b, G)
         res = {"dW_ih": rel_err(got[0], ref[0], TOL[cd]), "dW_hh": rel_err(got[1], ref[1], TOL[cd])}
         torch.cuda.synchronize()
-        check = {"kernel": "bilstm_wgrad_mma", "B": B, "G": G, "T": T, "H": H,
-                 "E_parts": E_parts, "dtype": "bfloat16",
+        check = {"kernel": kernel.__name__, "B": B, "G": G, "T": T, "H": H,
+                 "E_parts": E_parts, "dtype": str(cd).replace("torch.", ""),
                  "max_abs_err": {n: e for n, (e, _) in res.items()},
                  "tol": f"{TOL[cd]} x max(1, max|ref|)"}
         out.append(check)
@@ -1478,24 +1539,28 @@ def ragged_wide_wgrad_check(dev, H=E_SCALED) -> list:
     return out
 
 
-def lite_mma_at(rows, args):
-    """``bilstm_bwd_lite_mma(*args)`` with its plan held to row tiles of
-    ``rows`` (the plan's only candidate for the call)."""
+def at_rows(candidates, rows, fn, *args):
+    """``fn(*args)`` with a tensor-core wide kernel's plan held to row tiles
+    of ``rows``: ``candidates`` names the plan's row tiles in
+    ``ops/lstm_cuda.py`` ("LITE_MMA_ROWS", "FWD_WIDE_MMA_ROWS"), set to
+    ``(rows,)`` for the call."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
 
-    keep = L.LITE_MMA_ROWS
-    L.LITE_MMA_ROWS = (rows,)
+    keep = getattr(L, candidates)
+    setattr(L, candidates, (rows,))
     try:
-        return L.bilstm_bwd_lite_mma(*args)
+        return fn(*args)
     finally:
-        L.LITE_MMA_ROWS = keep
+        setattr(L, candidates, keep)
 
 
 def ragged_wide_sweep_check(dev, H=E_SCALED) -> list:
-    """The tensor-core input gates and lite sweep against their twins at the
-    scaled width where no size is round: 27 rows in 3 weight groups of 9
-    (one input part) and in 1 group (two parts), T = 1 and 5, lengths
-    mixing 0, 1 and T, every row tile the sweep takes, bf16."""
+    """The tensor-core input gates, wide forward (both variants) and lite
+    sweep against their twins at the scaled width where no size is round:
+    27 rows in 3 weight groups of 9 (one input part) and in 1 group (two
+    parts), T = 1 and 5, lengths mixing 0, 1 and T, every row tile the
+    forward and the sweep take, bf16; the forward's two variants give the
+    same hs bits."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence, input_gates
 
@@ -1515,7 +1580,20 @@ def ragged_wide_sweep_check(dev, H=E_SCALED) -> list:
         lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
         xg = L.bilstm_gates_mma(parts, w_ih, bias, cd)
         res = {"xg": rel_err(xg, input_gates(parts, w_ih, bias, cd), TOL[cd])}
-        hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+        fwd = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+        names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+        for rows in L.FWD_WIDE_MMA_ROWS:
+            got = at_rows("FWD_WIDE_MMA_ROWS", rows, L.bilstm_fwd_wide_train_mma, xg, lengths,
+                          w_hh, cd)
+            ev = at_rows("FWD_WIDE_MMA_ROWS", rows, L.bilstm_fwd_wide_mma, xg, lengths, w_hh, cd)
+            res.update({f"fwd_rows{rows}_{n}": rel_err(a, b, TOL[cd])
+                        for n, a, b in zip(names, got, fwd)})
+            res.update({f"fwd_eval_rows{rows}_{n}": rel_err(a, b, TOL[cd])
+                        for n, a, b in zip(names, ev, fwd)})
+            res[f"fwd_rows{rows}_eval_vs_train_hs"] = (
+                max(float((a.float() - b.float()).abs().max()) for a, b in zip(ev[:2], got[:2])),
+                all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
+        hs_f, hs_b, _, _, cs_f, cs_b = fwd
         ny = 2 if G > 1 else 1
         dy = [u(T, B, H).to(cd) for _ in range(2 * ny)]
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[ny:], u(2, B, H),
@@ -1523,9 +1601,11 @@ def ragged_wide_sweep_check(dev, H=E_SCALED) -> list:
         want = bidir_layer_sweep_lite(*args)
         for rows in L.LITE_MMA_ROWS:
             if L.wide_smem("lite_mma", H, rows) <= L.SMEM_LIMIT:
-                res[f"dgates_rows{rows}"] = rel_err(lite_mma_at(rows, args), want, TOL[cd])
+                res[f"dgates_rows{rows}"] = rel_err(
+                    at_rows("LITE_MMA_ROWS", rows, L.bilstm_bwd_lite_mma, *args), want, TOL[cd])
         torch.cuda.synchronize()
-        check = {"kernels": ["bilstm_gates_mma", "bilstm_bwd_lite_mma"], "B": B, "G": G, "T": T,
+        check = {"kernels": ["bilstm_gates_mma", "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma"],
+                 "B": B, "G": G, "T": T,
                  "H": H, "E_parts": E_parts, "dtype": "bfloat16",
                  "max_abs_err": {n: e for n, (e, _) in res.items()},
                  "tol": f"{TOL[cd]} x max(1, max|ref|)"}
@@ -1561,7 +1641,8 @@ def phase_wide_kernel(dev) -> dict:
             res = run(E_parts, h, G, dtype, dev, SEED + 30 + i, T)
             check = {"route": route, "B": B_TRAIN, "T": T, "H": h, "G": G, "E_parts": E_parts,
                      "dtype": str(dtype).replace("torch.", ""),
-                     "kernels": ([L.gates_kernel(E_parts, h, dtype), L.lite_kernel(h, dtype)]
+                     "kernels": ([L.gates_kernel(E_parts, h, dtype), L.wide_fwd_kernel(h, dtype),
+                                  L.lite_kernel(h, dtype), L.wgrad_kernel(E_parts, h, dtype)]
                                  if route == "wide" else []),
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{TOL[dtype]} x max(1, max|ref|)"}
@@ -1591,32 +1672,44 @@ def phase_wide_kernel(dev) -> dict:
             hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
             lite_args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
-            add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), 3))
-            add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, dtype), 3))
+            fwd_args = (xg, lengths, w_hh, dtype)
+            # new, old, old, new: a tensor-core kernel and the CUDA-core one
+            # by name, on the same operands; in bf16 every kernel, in f32 wgrad
+            turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
             if bf16:
-                # new, old, old, new: the tensor-core kernels and the CUDA-core
-                # ones by name, on the same operands
-                for key, new, old in (
+                turns += [
                     ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
                      lambda: L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")),
+                    ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
+                     lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
+                    ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
+                     lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide")),
                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
                      lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite")),
-                    ("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                     lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")),
-                ):
-                    a, b, c = in_turns(new, old, 3)
-                    add(f"{key}_ms", a)
-                    add(f"{key}_ms_again", b)
-                    add(f"{key}_cuda_core_ms", c)
-                # the sweep's other row tiles on the same operands
+                ]
+            else:
+                add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
+                add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(*fwd_args), 3))
+                add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(*fwd_args), 3))
+                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
+            for key, new, old in turns:
+                a, b, c = in_turns(new, old, 3)
+                add(f"{key}_ms", a)
+                add(f"{key}_ms_again", b)
+                add(f"{key}_cuda_core_ms", c)
+            if bf16:
+                # the forward's and the sweep's row tiles on the same operands
+                for rows in L.FWD_WIDE_MMA_ROWS:
+                    add(f"fwd_rows{rows}_ms", time_ms(lambda: at_rows(
+                        "FWD_WIDE_MMA_ROWS", rows, L.bilstm_fwd_wide_train_mma, *fwd_args), 3))
+                    add(f"fwd_eval_rows{rows}_ms", time_ms(lambda: at_rows(
+                        "FWD_WIDE_MMA_ROWS", rows, L.bilstm_fwd_wide_mma, *fwd_args), 3))
                 for rows in L.LITE_MMA_ROWS:
                     if L.wide_smem("lite_mma", H, rows) <= L.SMEM_LIMIT:
                         add(f"lite_rows{rows}_ms",
-                            time_ms(lambda: lite_mma_at(rows, lite_args), 3))
-            else:
-                add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
-                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
-                add("wgrad_ms", time_ms(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), 3))
+                            time_ms(lambda: at_rows("LITE_MMA_ROWS", rows, L.bilstm_bwd_lite_mma,
+                                                    *lite_args), 3))
             add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
             add("fwd_plain_ms", time_ms(
                 lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True), 1))
@@ -1653,8 +1746,14 @@ def phase_wide_kernel(dev) -> dict:
             for k, (f, b) in wide_layer_work(sum(E_parts), H, G, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
-            del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args
-        add_bounds(t, work, dtype)
+            del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args, fwd_args, turns
+        # the f32 wgrad runs three tf32 products for each f32 one; the
+        # CUDA-core kernel's bound at the f32 rate beside it
+        add_bounds(t, work, dtype, None if bf16 else {
+            "wgrad": kernel_peak(dtype, "bilstm_wgrad_f32")})
+        if not bf16:
+            t["wgrad_cuda_core_bound_ms"], t["wgrad_cuda_core_bound_by"] = bound(
+                [(*work["wgrad"], PEAK_F32_FLOPS)])
         timings[name] = t
     timings["row4"] = row4_timings(dev)
     cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
@@ -1699,34 +1798,43 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
         lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
         groups={"gates_mma": "bilstm_gates_mma_kernel",
                 "gates_cuda_core": "bilstm_gates_kernel",
+                "fwd_wide_mma": "bilstm_fwd_wide_mma_kernel",
                 "fwd_wide": "bilstm_fwd_wide_kernel",
                 "lite_mma": "bilstm_bwd_lite_mma_kernel",
                 "lite_cuda_core": "bilstm_bwd_lite_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel",
-                "wgrad_cuda_core": "bilstm_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
+                "wgrad_cuda_core": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel"),
+                "gemm": ("gemm", "nvjet", "xmma")})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
-    missing = [n for n in ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+    missing = [n for n in ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                            "bilstm_bwd_lite_mma", "bilstm_wgrad_mma") if launches[n] <= 0]
     old = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
                        "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
-                       "bilstm_wgrad", "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
-                       "bilstm_bwd_f32", "bilstm_gates", "bilstm_bwd_lite") if launches[n] != 0]
+                       "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
+                       "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_gates",
+                       "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite")
+           if launches[n] != 0]
     if missing or old:
         raise AssertionError(
             f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
-            f"gates, sweep or wgrad: {old}")
+            f"gates, forward, sweep or wgrad: {old}")
     del trainer, net
-    # card gradients at the scaled widths: in f32 (the CUDA-core gates and
-    # lite sweep, whose main path this step is) and in bf16 (the tensor-core ones)
-    grad_check = train_grad_check(dev, embedding_size=E_SCALED, rnn_num_layers=LAYERS_SCALED)
+    # card gradients at the scaled widths: in f32 (the CUDA-core gates, wide
+    # forward and lite sweep, whose main path this step and the eval step
+    # after it are, and the 3xTF32 wgrad) and in bf16 (the tensor-core ones)
+    grad_check = train_grad_check(dev, eval_step=True, embedding_size=E_SCALED,
+                                  rnn_num_layers=LAYERS_SCALED)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16, embedding_size=E_SCALED,
                                        rnn_num_layers=LAYERS_SCALED)
     for check, want, never in (
-            (grad_check, ("bilstm_gates", "bilstm_bwd_lite", "bilstm_fwd_wide_train"),
-             ("bilstm_gates_mma", "bilstm_bwd_lite_mma")),
-            (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma"),
-             ("bilstm_gates", "bilstm_bwd_lite", "bilstm_wgrad"))):
+            (grad_check, ("bilstm_gates", "bilstm_bwd_lite", "bilstm_fwd_wide_train",
+                          "bilstm_fwd_wide", "bilstm_wgrad_f32"),
+             ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_fwd_wide_train_mma",
+              "bilstm_fwd_wide_mma", "bilstm_wgrad")),
+            (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma",
+                               "bilstm_fwd_wide_train_mma"),
+             ("bilstm_gates", "bilstm_bwd_lite", "bilstm_wgrad", "bilstm_fwd_wide_train"))):
         ran = check["launches"]
         if any(ran.get(n, 0) <= 0 for n in want) or any(ran.get(n, 0) for n in never):
             raise AssertionError(f"the {check['dtype']} gradient step at the scaled widths ran "
@@ -2237,11 +2345,12 @@ def main() -> int:
     }
     library = {"fwd": t32["cudnn_fwd_ms"], "bwd": t32["cudnn_bwd_data_ms"],
                "wgrad": t32["wgrad_library_ms"]}
-    # the 3xTF32 forward and the CUDA-core wgrad: the f32 step
+    # the 3xTF32 forward and wgrad: the f32 step
     path_launches = train["float32_steps"]["launches"]
+    w32 = wk["timings"]["float32"]
     for key, name, source, replaces in (
         ("fwd", "bilstm_layer_fwd_train_f32", "bilstm_fwd_f32.cu", "lstm_pallas_packed.py:256"),
-        ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "lstm_pallas_packed.py:494"),
+        ("wgrad", "bilstm_wgrad_f32", "bilstm_wgrad_f32.cu", "lstm_pallas_packed.py:494"),
     ):
         entry = {
             "name": name,
@@ -2275,6 +2384,27 @@ def main() -> int:
                               "old, old, new); eval_*: the eval variant on them; library: cuDNN "
                               "nn.LSTM training forward, TF32 off; tf32_one_pass_scaled_err: the "
                               "twin in one tf32 pass, against the f32 tolerance 1e-4")
+        else:
+            # the scaled widths: layer 0 and one E = 2 x 256 layer at H = 256,
+            # whose f32 main path is the f32 gradient step there
+            entry.update({
+                "ms_again": t32["wgrad_ms_again"], "cuda_core_ms": t32["wgrad_cuda_core_ms"],
+                "scaled_err": max(c["wgrad_scaled_err"] for c in tk["checks"]
+                                  if c["dtype"] == "float32"),
+                **{f"h256_{k}": w32[f"wgrad_{k}"]
+                   for k in ("ms", "ms_again", "cuda_core_ms", "library_ms", "plain_ms",
+                             "bound_ms", "bound_by", "cuda_core_bound_ms")},
+                "h256_launches": scaled["grad_check"]["launches"].get(name, 0),
+                "h256_max_abs_err": max(v for c in wk["checks"] + wk["ragged_checks"]
+                                        if c["dtype"] == "float32" and c["H"] == E_SCALED
+                                        for n, v in c["max_abs_err"].items()
+                                        if n in train_errs[key]),
+            })
+            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
+                              "bilstm_wgrad.cu by name on the same operands (new, old, old, "
+                              "new); library: cuBLAS f32 products, TF32 off; h256_*: layer 0 "
+                              "(E=256, 5 groups) + one E=2x256 layer at H=256, T=1500, its "
+                              "launches in the f32 gradient step at the scaled widths")
         kernels.append(entry)
     # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
     # same operands, in turns (new, old, old, new), is a yardstick there
@@ -2303,20 +2433,22 @@ def main() -> int:
                 "against the f32 tolerance 1e-4; library: cuDNN nn.LSTM backward (input) in "
                 "f32, TF32 off",
     })
-    # the CUDA-core forward (both variants) and sweep at their main path's
-    # shapes: the f32 model at embedding 80 (its train steps and an eval step)
+    # the CUDA-core forward (both variants), sweep and wgrad at their main
+    # path's shapes: the f32 model at embedding 80 (its train steps and an
+    # eval step)
     e80 = tk["embedding_80"]
     e80_launches = train["float32_steps_embedding_80"]["launches"]
     for key, name, source in (("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu"),
                               ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu"),
-                              ("bwd", "bilstm_bwd", "bilstm_bwd.cu")):
+                              ("bwd", "bilstm_bwd", "bilstm_bwd.cu"),
+                              ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu")):
         e = e80[key]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:"
-                        + ("494" if key == "bwd" else "256"),
+                        + ("256" if key.startswith("fwd") else "494"),
             "launches": e80_launches[name],
             "max_abs_err": max(e["max_abs_err"].values()),
             "ms": e["ms"],
@@ -2325,9 +2457,11 @@ def main() -> int:
             "bound_by": e[f"{key}_bound_by"],
             "library_ms": e["library_ms"],
             "work": "the one layer of the f32 model at embedding 80 (E=H=80, 5 groups, one dy "
-                    "stream a direction), 400 rows, T=1500; library: cuDNN one-layer nn.LSTM "
-                    + {"fwd_eval": "inference", "fwd": "training forward",
-                       "bwd": "backward (input)"}[key] + " in f32, TF32 off",
+                    "stream a direction), 400 rows, T=1500; library: "
+                    + {"fwd_eval": "cuDNN one-layer nn.LSTM inference",
+                       "fwd": "cuDNN one-layer nn.LSTM training forward",
+                       "bwd": "cuDNN one-layer nn.LSTM backward (input)",
+                       "wgrad": "cuBLAS products"}[key] + " in f32, TF32 off",
         })
     kernels.append({
         "name": "bilstm_bwd_mma",
@@ -2389,33 +2523,28 @@ def main() -> int:
                                     "bound_by")})
             entry["h256_launches"] = scaled["launches"][name]
         kernels.append(entry)
-    w32 = wk["timings"]["float32"]
     wide_errs = {
         "gates": ("xg",),
         "fwd": tuple(f"train_{n}" for n in ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")),
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    # the wide forward runs in the bf16 scaled step; the CUDA-core gates and
-    # lite sweep keep f32, whose main path is the f32 gradient step at the
-    # scaled widths (train_scaled's grad_check)
+    # the CUDA-core gates, wide forward and lite sweep keep f32, whose main
+    # path is the f32 gradient step at the scaled widths and the eval step
+    # after it (train_scaled's grad_check)
     f32_scaled = scaled["grad_check"]["launches"]
-    for key, name, source, replaces, launches in (
-        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285",
-         f32_scaled.get("bilstm_gates", 0)),
-        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285",
-         scaled["launches"]["bilstm_fwd_wide_train"]),
-        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285",
-         scaled["launches"]["bilstm_fwd_wide"]),
-        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436",
-         f32_scaled.get("bilstm_bwd_lite", 0)),
+    for key, name, source, replaces in (
+        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285"),
+        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
+        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
+        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
     ):
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": launches,
+            "launches": f32_scaled.get(name, 0),
             "max_abs_err": max(v for c in wk["checks"] if c["dtype"] == "float32"
                                and c["route"] == "wide"
                                for n, v in c["max_abs_err"].items() if n in wide_errs[key]),
@@ -2427,34 +2556,37 @@ def main() -> int:
             "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, "
                     "400 rows, T=1500, H=256",
         }
-        if key.startswith("fwd"):
-            # the scaled step runs it in bf16
-            entry.update({f"bf16_{k}": w16[f"{key}_{k}"]
-                          for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            entry["work"] += "; bf16_*: the same in bf16 (the scaled step's dtype)"
-        else:
-            entry.update({f"bf16_{k}": w16[f"{key}_{k}"] for k in ("cuda_core_ms", "plain_ms")})
-            entry["work"] += ("; launches: the f32 gradient step at the scaled widths; "
-                              "bf16_cuda_core_ms: this kernel on the bf16 operands of the "
-                              "tensor-core one's row, by name")
+        entry.update({f"bf16_{k}": w16[f"{key}_{k}"] for k in ("cuda_core_ms", "plain_ms")})
+        entry["work"] += ("; launches: the f32 gradient step at the scaled widths and the eval "
+                          "step after it; bf16_cuda_core_ms: this kernel on the bf16 operands "
+                          "of the tensor-core one's row, by name")
         kernels.append(entry)
-    # the tensor-core gates and lite sweep: the bf16 scaled step
-    for key, name, replaces, library, errs in (
-        ("gates", "bilstm_gates_mma", "lstm_pallas_layer.py:255",
+    # the tensor-core gates, wide forward (both variants) and lite sweep: the
+    # bf16 scaled step and its eval step; each error name the checks give
+    # the kernel, ragged row tiles included
+    for key, name, source, replaces, library, picks in (
+        ("gates", "bilstm_gates_mma", "bilstm_gates_mma", "lstm_pallas_layer.py:255",
          "one torch.addmm on the bf16 operands with out_dtype=float32 (cuBLAS); "
-         "library_bf16_out_ms: bf16 addmm then .float()", ("xg",)),
-        ("lite", "bilstm_bwd_lite_mma", "lstm_pallas_layer.py:436",
+         "library_bf16_out_ms: bf16 addmm then .float()", lambda n: n == "xg"),
+        ("fwd", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma", "lstm_pallas_layer.py:285",
+         "cuDNN training forward of one bidirectional nn.LSTM layer in bf16; library_f32_ms: "
+         "the same in f32, TF32 off",
+         lambda n: n.startswith("train_") or (n.startswith("fwd_rows") and "_vs_" not in n)),
+        ("fwd_eval", "bilstm_fwd_wide_mma", "bilstm_fwd_wide_mma", "lstm_pallas_layer.py:285",
+         "cuDNN inference forward of one bidirectional nn.LSTM layer in bf16; library_f32_ms: "
+         "the same in f32, TF32 off",
+         lambda n: n.startswith("eval_") or n.startswith("fwd_eval_rows")),
+        ("lite", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_mma", "lstm_pallas_layer.py:436",
          "cuDNN backward (input) of one bidirectional nn.LSTM layer in bf16; library_f32_ms: "
-         "the same in f32, TF32 off", ("dgates",)),
+         "the same in f32, TF32 off", lambda n: n.startswith("dgates")),
     ):
         picked = [v for c in wk["checks"] + wk["ragged_checks"]
-                  if c["dtype"] == "bfloat16" and name in c.get("kernels", ())
-                  for n, v in c["max_abs_err"].items()
-                  if n in errs or (key == "lite" and n.startswith("dgates"))]
+                  if c["dtype"] == "bfloat16" and source in c.get("kernels", ())
+                  for n, v in c["max_abs_err"].items() if picks(n)]
         entry = {
             "name": name,
             "route": "cuda",
-            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+            "source": f"intrepppid_tpu_torch/csrc/{source}.cu",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
             "launches": scaled["launches"][name],
             "max_abs_err": max(picked),
@@ -2473,7 +2605,7 @@ def main() -> int:
         if key == "gates":
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
         else:
-            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith("lite_rows")}
+            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith(f"{key}_rows")}
         kernels.append(entry)
     # the recurrence op: both layers of one recurrence-backend step (layer 0
     # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
@@ -2585,7 +2717,7 @@ def main() -> int:
                 "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
                 "one batched cuBLAS product; bmm_ms: that product alone",
     })
-    if len(kernels) != 23 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 26 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

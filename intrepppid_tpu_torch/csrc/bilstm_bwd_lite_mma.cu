@@ -112,13 +112,6 @@ struct Args {
   int T, B, G;
 };
 
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait_acquire() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // grid (tiles * kWideCluster, 2) in clusters of kWideCluster, kThreads threads.
 template <int H, int BR>
 __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_kernel(const Args a) {

@@ -2,11 +2,11 @@
 // bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
 // lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
 // lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
-// kernels, bilstm_bwd_lite_mma.cu among them on the wide kernels' cluster
-// launch): compute-dtype conversions, 16-byte stream chunks
-// widened to f32 in shared memory, the per-unit four-gate product over
-// weights resident in shared memory, and the launch dispatch of the wide
-// (cluster) kernels.
+// kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu among them on
+// the wide kernels' cluster launch and barriers): compute-dtype
+// conversions, 16-byte stream chunks widened to f32 in shared memory, the
+// per-unit four-gate product over weights resident in shared memory, and
+// the launch dispatch and barriers of the wide (cluster) kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -199,6 +199,18 @@ int launch_wide(void (*kernel)(Params...), int tiles, int threads, int smem, cud
 __device__ __forceinline__ void cluster_sync_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\tbarrier.cluster.wait.aligned;"
                ::: "memory");
+}
+
+// The two halves of a cluster barrier with release / acquire ordering:
+// what a thread wrote to shared memory (its own block's or, through
+// distributed shared memory, another's) before it arrives is visible to
+// every thread of the cluster once that thread's wait returns; work between
+// the two halves overlaps the barrier.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The global row of local row `rl` of row tile `tile` when each of the G

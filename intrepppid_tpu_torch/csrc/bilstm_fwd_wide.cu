@@ -44,6 +44,9 @@
 // clusters fill the card in as few waves as the shared memory allows.
 // Not yet done: tensor cores, and one barrier per step (a second h buffer
 // does not fit beside the weights at the tile sizes that fill one wave).
+// Both are in bilstm_fwd_wide_mma.cu (bf16 at H = 128 and 256: one bf16
+// weight copy leaves room for two h tiles), which takes those shapes over;
+// this kernel keeps f32 and the other bf16 widths.
 
 #include <cooperative_groups.h>
 

@@ -1,0 +1,405 @@
+// Bidirectional LSTM layer recurrence over the input gates, bf16 compute
+// dtype, for layers whose weights fit no block: the tensor-core variant,
+// hand-written for Hopper (sm_90a).
+//
+// Replaces, like bilstm_fwd_wide.cu (which keeps f32 and the widths this
+// kernel does not take), together with bilstm_gates_mma.cu (the input
+// projection), the TPU kernel
+//   intrepppid_tpu/ops/lstm_pallas_layer.py  _fwd_kernel (via _fwd_pallas,
+//     :376) -- the wide route's recurrence (ops/lstm_cuda.py:layer_route;
+//     the scaled configuration's H = 256, and H = 128), with_states=False
+//     (eval variant, cs null) and True (train variant: also the cell streams).
+//
+// Function (the contract of ops/lstm.py:bidir_recurrence): for each
+// direction d (0 forward, 1 reverse) and row r, step s reads position
+// pos = s (d = 0) or T-1-s (d = 1) and computes
+//   gates = xg[d, pos, r] + round(h) @ W_hh[d, g]^T
+// (xg the f32 input gates, gate order i, f, g, o; g = r / (B / G), the row's
+// weight group), then the cell update; the state moves iff pos <
+// lengths[r]. Every step writes the (possibly frozen) h to hs_f[pos] /
+// hs_b[pos] and, in the train variant, c to cs_f[pos] / cs_b[pos], both
+// bf16; h and c are f32 and the recurrent operand is h rounded to bf16.
+//
+// What bounds it on an H100: the roofline bound is bytes (the f32 xg read
+// once, ~3.7 ms for the scaled step's layer 0 and one E = 512 layer); the
+// product is far below it on the tensor cores. What governs is the serial
+// chain of a step, T times: one product over the block's W_hh slice, the
+// cell maths, and the exchange of the new h between the blocks of a cluster.
+//
+// Design (bilstm_mma.cuh has the fragment and permutation notes):
+//   * the split of bilstm_fwd_wide.cu: a cluster of 8 blocks per (row tile,
+//     direction); block k owns hidden units [k H/8, (k+1) H/8) and keeps
+//     their 4H/8 gate rows of W_hh[d, g] resident, ONE bf16 copy (64 KB at
+//     H = 256, not the 128 KB f32 copy of the CUDA-core kernel), gate rows
+//     permuted so that a lane holds a unit's four gates, rows padded by 8
+//     elements (ldmatrix conflict-free);
+//   * the gate product on mma.sync m16n8k16, swapped (the weights are the
+//     16-row A operand, 8 rows of the tile the n8 operand), from the
+//     tile's whole h in bf16; 8 warps: warp w takes the 8 units 8 (w % UG)
+//     .. of the block's UG groups and every (8 / UG)-th n8 tile, so the
+//     cell maths needs no exchange. The product starts from zero and xg is
+//     added after it, the order of bilstm_bwd_lite_mma.cu's recompute and of
+//     the plain twin;
+//   * the tile's h is double-buffered in every block: step s reads buffer
+//     s % 2 and pushes the block's new h into buffer (s + 1) % 2 of all 8
+//     blocks through distributed shared memory, 16-byte stores of a row's
+//     units staged first in shared memory; so ONE cluster barrier a step
+//     suffices (a block pushes into buffer s % 2 at step s + 1 only after
+//     every block has arrived at step s's barrier, i.e. finished reading it);
+//   * between the barrier's arrive and its wait the step's hs / cs stores
+//     leave, 16 bytes a thread from the staged tile; the next step's f32 xg
+//     slice is loaded into registers, in the accumulator's fragment layout,
+//     right after the cell maths, a whole step ahead of its use;
+//   * the cell uses ex2 / rcp (bilstm_mma.cuh); h and c stay f32;
+//   * a tile stops at its longest row: past it the forward direction writes
+//     its frozen state, the reverse direction zeros (its state before its
+//     first real step);
+//   * row tiles of BR in {16, 32, 40, 64, 80} rows (multiples of the n8
+//     tile), each weight group cut into its own tiles; ops/lstm_cuda.py
+//     picks BR by waves (cudaOccupancyMaxActiveClusters) and shared memory.
+//     A step costs a fixed latency (product chain, barrier, pushes) plus a
+//     share a row, so the tiles whose shared memory leaves room for two
+//     blocks an SM are compiled for two (blocks_per_sm): one block's product
+//     runs while the other waits on its barrier, and at H = 256 the 32-row
+//     tile puts 30 clusters on the card at once, the scaled shapes in one wave.
+// The eval and train variants run the same code for h: they give the same
+// hs bits. It takes H = 128 and 256 (whole 8-unit groups in each block, and
+// 8 warps split evenly over them).
+
+#include <cooperative_groups.h>
+
+#include "bilstm_common.cuh"
+#include "bilstm_mma.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace bilstm;
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 8;  // bf16 elements of padding on weight, h and staging rows
+
+// Dynamic shared memory of the <H, BR> instance (bytes), in layout order:
+// the permuted W_hh slice, two h tiles, the staged new h and c of the block.
+__host__ __device__ constexpr int smem_w(int H) { return 4 * (H / 8) * (H + kPad) * 2; }
+__host__ __device__ constexpr int smem_h(int H, int BR) { return 2 * BR * (H + kPad) * 2; }
+__host__ __device__ constexpr int smem_stage(int H, int BR) {
+  return 2 * BR * (H / 8 + kPad) * 2;
+}
+__host__ __device__ constexpr int smem_bytes(int H, int BR) {
+  return smem_w(H) + smem_h(H, BR) + smem_stage(H, BR);
+}
+
+struct Args {
+  const float* xg;  // (2, T, B, 4H)
+  const int* lengths;
+  const bf16* w_hh;  // (2, G, 4H, H)
+  bf16* hs[2];       // per direction, (T, B, H)
+  bf16* cs[2];       // null: the eval variant
+  float* hn;         // (2, B, H)
+  float* cn;
+  int T, B, G;
+};
+
+// Blocks an SM that the <H, BR> instance is compiled for: two where two fit
+// the SM's shared memory (228 KB, 1 KB of it reserved a block), so that one
+// block's product runs while the other waits on its cluster barrier.
+__host__ __device__ constexpr int blocks_per_sm(int H, int BR) {
+  return 2 * (smem_bytes(H, BR) + 1024) <= 233472 ? 2 : 1;
+}
+
+// grid (tiles * kWideCluster, 2) in clusters of kWideCluster, kThreads threads.
+template <int H, int BR>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(H, BR))
+    bilstm_fwd_wide_mma_kernel(const Args a) {
+  constexpr int U = H / kWideCluster, U4 = 4 * U, H4 = 4 * H;
+  constexpr int UG = U / 8;               // 8-unit groups a block owns
+  constexpr int NT = BR / 8;              // n8 tiles of the row tile
+  constexpr int NG = kWarps / UG;         // warps that share a unit group
+  constexpr int GI = (NT + NG - 1) / NG;  // n8 tiles of a warp
+  constexpr int KS = H + kPad;            // weight / h row stride (bf16)
+  constexpr int SS = U + kPad;            // staging row stride (bf16)
+  constexpr int HC = H / 8;               // 16-byte chunks of a weight row
+  constexpr int UC = U / 8;               // 16-byte chunks of a row's slice of units
+  constexpr int NCH = (BR * UC + kThreads - 1) / kThreads;
+  constexpr int W_AT = 0;
+  constexpr int H_AT = W_AT + smem_w(H);
+  constexpr int ST_AT = H_AT + smem_h(H, BR);
+  static_assert(U % 8 == 0 && kWarps % UG == 0 && BR % 8 == 0, "shape");
+  static_assert(smem_bytes(H, BR) == ST_AT + smem_stage(H, BR), "layout");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / kWideCluster;
+  const int d = blockIdx.y;
+  const int T = a.T, B = a.B;
+  const int Bg = B / a.G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int group = tile_row(tile, 0, BR, Bg) / Bg;
+  bf16* hs = a.hs[d];
+  bf16* cs = a.cs[d];
+  const bool train = cs != nullptr;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t smem0 = smem_u32(smem);
+  bf16* h_s = reinterpret_cast<bf16*>(smem + H_AT);  // [2][BR][KS]
+  bf16* hst = reinterpret_cast<bf16*>(smem + ST_AT);  // [BR][SS]: the block's new h
+  bf16* cst = hst + BR * SS;                           // [BR][SS]: its new c
+
+  // stage this block's 4U gate rows of W_hh[d, group], permuted: row p =
+  // 32 * (ul / 8) + 8 * gate + ul % 8 holds gate `gate` of local unit ul
+  {
+    const bf16* w = a.w_hh + ((size_t)d * a.G + group) * H4 * H;
+    for (int idx = tid; idx < U4 * HC; idx += kThreads) {
+      const int p = idx / HC, c = idx - p * HC;
+      const int ul = 8 * (p >> 5) + (p & 7), q = (p & 31) >> 3;
+      cp_async16(smem0 + W_AT + (uint32_t)((p * KS + 8 * c) * 2),
+                 w + ((size_t)q * H + rank * U + ul) * H + 8 * c, true);
+    }
+    cp_async_commit();
+  }
+  // the first step's h: zero
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = tid; idx < BR * KS / 8; idx += kThreads) reinterpret_cast<uint4*>(h_s)[idx] = zero4;
+
+  // the tile's longest row bounds the positions that do any work; every
+  // block of the cluster finds the same maxlen, so they take the same barriers
+  int maxlen = 0;
+  for (int rl = 0; rl < BR; ++rl) {
+    const int r = tile_row(tile, rl, BR, Bg);
+    if (r >= 0) maxlen = max(maxlen, min(a.lengths[r], T));
+  }
+
+  // this thread's 16-byte chunks of the staged tiles (tile row idx / UC,
+  // units 8 (idx % UC) ..): -1 past the group's end, -2 no chunk
+  int crow[NCH];
+  uint4 hv[NCH], cv[NCH];
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) {
+    const int idx = tid + m * kThreads;
+    crow[m] = idx < BR * UC ? tile_row(tile, idx / UC, BR, Bg) : -2;
+    hv[m] = zero4;
+    cv[m] = zero4;
+  }
+  auto store_chunks = [&](int pos) {
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      if (crow[m] < 0) continue;
+      const int c = (tid + m * kThreads) % UC;
+      const size_t at = ((size_t)pos * B + crow[m]) * H + rank * U + 8 * c;
+      *reinterpret_cast<uint4*>(hs + at) = hv[m];
+      if (train) *reinterpret_cast<uint4*>(cs + at) = cv[m];
+    }
+  };
+  // the reverse direction meets positions [maxlen, T) first, with its state still zero
+  if (d == 1)
+    for (int pos = maxlen; pos < T; ++pos) store_chunks(pos);
+
+  // lane (g, t) of warp w: unit ul = 8 ug + g of the block, n8 tiles
+  // ng + NG j, tile rows 8 nt + 2t + i
+  const int ug = warp % UG, ng = warp / UG;
+  const int ul = 8 * ug + g, unit = rank * U + ul;
+  int row[GI][2], len[GI][2];
+  float h[GI][2], c[GI][2], xv[GI][2][4];
+#pragma unroll
+  for (int j = 0; j < GI; ++j) {
+    const int nt = ng + NG * j;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = nt < NT ? tile_row(tile, 8 * nt + 2 * t + i, BR, Bg) : -1;
+      row[j][i] = r;
+      len[j][i] = r >= 0 ? a.lengths[r] : 0;
+      h[j][i] = 0.0f;
+      c[j][i] = 0.0f;
+    }
+  }
+  const float* xgd = a.xg + (size_t)d * T * B * H4;
+  // the four gates of this lane's unit and rows at `pos`, into registers
+  auto load_xg = [&](int pos) {
+#pragma unroll
+    for (int j = 0; j < GI; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row[j][i];
+        const float* src = xgd + ((size_t)pos * B + (r >= 0 ? r : 0)) * H4 + unit;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xv[j][i][q] = r >= 0 ? __ldg(src + q * H) : 0.0f;
+      }
+  };
+  const int pos0 = d ? maxlen - 1 : 0, dpos = d ? -1 : 1;
+  if (maxlen > 0) load_xg(pos0);
+
+  // gate product: A rows 32 ug + 16 mt + lr + 8 (lm & 1), columns k0 + 8 (lm >> 1);
+  // B: h tile rows 8 nt + lr, columns k0 + 8 lm (two k16 steps a load)
+  const uint32_t a_gate =
+      smem0 + W_AT + (uint32_t)(((32 * ug + lr + 8 * (lm & 1)) * KS + 8 * (lm >> 1)) * 2);
+  const uint32_t b_gate = (uint32_t)(((8 * ng + lr) * KS + 8 * lm) * 2);
+  float acc[GI][2][4];
+  auto gate_mma = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < GI; ++j)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.0f;
+    const uint32_t b_base = smem0 + H_AT + (uint32_t)(buf * BR * KS * 2) + b_gate;
+    uint32_t fa[2][2][2][4];  // [buffer][k16 half][mt]
+    auto load_a = [&](uint32_t (&f)[2][2][4], int r) {
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(f[kh][mt], a_gate + (uint32_t)((16 * mt * KS + 32 * r + 16 * kh) * 2));
+    };
+    load_a(fa[0], 0);
+#pragma unroll
+    for (int r = 0; r < H / 32; ++r) {
+      uint32_t(&f)[2][2][4] = fa[r & 1];
+      if (r + 1 < H / 32) load_a(fa[(r + 1) & 1], r + 1);
+#pragma unroll
+      for (int j = 0; j < GI; ++j) {
+        if (ng + NG * j >= NT) continue;
+        uint32_t b[4];
+        ldmatrix_x4(b, b_base + (uint32_t)((8 * NG * j * KS + 32 * r) * 2));
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[j][mt], f[kh][mt], b[2 * kh], b[2 * kh + 1]);
+      }
+    }
+  };
+
+  cp_async_wait<0>();
+  __syncthreads();  // W_hh's slice and the zero h tile are in place
+  cluster.sync();   // every block of the cluster runs (its shared memory takes pushes)
+
+  int pos = pos0;
+  for (int s = 0; s < maxlen; ++s, pos += dpos) {
+    const int buf = s & 1;
+    gate_mma(buf);
+
+    // the cell: lane (g, t) holds the four gates of unit `ul` for rows 2t, 2t + 1
+#pragma unroll
+    for (int j = 0; j < GI; ++j) {
+      const int nt = ng + NG * j;
+      if (nt >= NT) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float ig = fast_sigmoid(xv[j][i][0] + acc[j][0][i]);
+        const float fg = fast_sigmoid(xv[j][i][1] + acc[j][0][2 + i]);
+        const float gg = fast_tanh(xv[j][i][2] + acc[j][1][i]);
+        const float og = fast_sigmoid(xv[j][i][3] + acc[j][1][2 + i]);
+        const float c_new = fg * c[j][i] + ig * gg;
+        const float h_new = og * fast_tanh(c_new);
+        if (pos < len[j][i]) {
+          c[j][i] = c_new;
+          h[j][i] = h_new;
+        }
+        const int rl = 8 * nt + 2 * t + i;
+        hst[rl * SS + ul] = __float2bfloat16_rn(h[j][i]);
+        if (train) cst[rl * SS + ul] = __float2bfloat16_rn(c[j][i]);
+      }
+    }
+    if (s + 1 < maxlen) load_xg(pos + dpos);
+    __syncthreads();  // the block's new h (and c) tile is staged
+
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      if (crow[m] == -2) continue;
+      const int idx = tid + m * kThreads, rl = idx / UC, cc = idx - rl * UC;
+      hv[m] = *reinterpret_cast<const uint4*>(hst + rl * SS + 8 * cc);
+      if (train) cv[m] = *reinterpret_cast<const uint4*>(cst + rl * SS + 8 * cc);
+      if (s + 1 < maxlen) {
+        // the next step's h tile of every block of the cluster
+        bf16* dst = h_s + ((buf ^ 1) * BR + rl) * KS + rank * U + 8 * cc;
+#pragma unroll
+        for (int k = 0; k < kWideCluster; ++k)
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, k)) = hv[m];
+      }
+    }
+    cluster_arrive_release();  // this block's pushes of step s are written
+    store_chunks(pos);
+    cluster_wait_acquire();  // every block's pushes landed; every block is past this step
+  }
+
+  // the forward direction's state is frozen past the tile's longest row
+  if (d == 0)
+    for (int p = maxlen; p < T; ++p) store_chunks(p);
+#pragma unroll
+  for (int j = 0; j < GI; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row[j][i];
+      if (r < 0) continue;
+      a.hn[((size_t)d * B + r) * H + unit] = h[j][i];
+      a.cn[((size_t)d * B + r) * H + unit] = c[j][i];
+    }
+}
+
+template <int H, int BR>
+int launch(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clusters) {
+  if (smem != smem_bytes(H, BR)) return (int)cudaErrorInvalidValue;
+  return launch_wide(bilstm_fwd_wide_mma_kernel<H, BR>, tiles, kThreads, smem, stream,
+                     max_clusters, a);
+}
+
+template <int H>
+int launch_rows(int rows, const Args& a, int tiles, int smem, cudaStream_t st, int* mc) {
+  switch (rows) {
+    case 16: return launch<H, 16>(a, tiles, smem, st, mc);
+    case 32: return launch<H, 32>(a, tiles, smem, st, mc);
+    case 40: return launch<H, 40>(a, tiles, smem, st, mc);
+    case 64: return launch<H, 64>(a, tiles, smem, st, mc);
+    case 80: return launch<H, 80>(a, tiles, smem, st, mc);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int bilstm_fwd_wide_mma_cluster() { return kWideCluster; }
+int bilstm_fwd_wide_mma_threads() { return kThreads; }
+int bilstm_fwd_wide_mma_pad() { return kPad; }
+
+const char* bilstm_fwd_wide_mma_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// The compute dtype is bfloat16. `rows` is the row tile (16, 32, 40, 64 or
+// 80) and `smem` its dynamic shared memory, as
+// ops/lstm_cuda.py:wide_smem("fwd_mma", ...) computes it (refused
+// otherwise). xg (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G, 4H, H);
+// hs_f, hs_b (and cs_f, cs_b, both null for the eval variant) (T, B, H)
+// bf16; hn, cn (2, B, H) f32. H = 128 or 256; each of the G weight groups
+// (B / G rows) is cut into its own tiles of `rows` rows: `tiles` =
+// G * ceil(B / G / rows). With max_clusters non-null, nothing is launched:
+// it receives how many clusters the card holds at once. Returns a
+// cudaError_t (0 on success).
+int bilstm_fwd_wide_mma(int rows, const void* xg, const void* lengths, const void* w_hh,
+                        void* hs_f, void* hs_b, void* cs_f, void* cs_b, void* hn, void* cn,
+                        int T_steps, int B, int H, int G, int tiles, int smem, void* stream,
+                        int* max_clusters) {
+  if (G <= 0 || B % G || (cs_f == nullptr) != (cs_b == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.xg = static_cast<const float*>(xg);
+  a.lengths = static_cast<const int*>(lengths);
+  a.w_hh = static_cast<const bf16*>(w_hh);
+  a.hs[0] = static_cast<bf16*>(hs_f); a.hs[1] = static_cast<bf16*>(hs_b);
+  a.cs[0] = static_cast<bf16*>(cs_f); a.cs[1] = static_cast<bf16*>(cs_b);
+  a.hn = static_cast<float*>(hn);
+  a.cn = static_cast<float*>(cn);
+  a.T = T_steps; a.B = B; a.G = G;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 256) return launch_rows<256>(rows, a, tiles, smem, st, max_clusters);
+  if (H == 128) return launch_rows<128>(rows, a, tiles, smem, st, max_clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -35,7 +35,11 @@
 // its partial tile (no atomics, so the result does not depend on the order
 // blocks run); the wrapper sums the partials over the splits (and, for
 // dW_ih, over the groups).
-// Not yet done: tensor cores (mma / wgmma) and multi-stage copies.
+// Not yet done: tensor cores (mma / wgmma) and multi-stage copies. They
+// are in bilstm_wgrad_mma.cu (bf16, H % 32 == 0) and bilstm_wgrad_f32.cu
+// (f32, H % 32 == 0, three tf32 passes), which take those shapes over; this
+// kernel keeps the rest (f32 at other widths, e.g. H = 80, and the bf16
+// shapes the tensor-core kernel does not take).
 
 #include "bilstm_common.cuh"
 

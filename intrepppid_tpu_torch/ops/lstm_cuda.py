@@ -39,10 +39,15 @@ packed, fused or lite kernels:
     on the tensor cores), ``bilstm_gates`` itself launches
     ``csrc/bilstm_gates.cu`` (f32, CUDA cores). Plain twin of both:
     ``ops/lstm.py:input_gates``.
-  * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` launch
-    ``csrc/bilstm_fwd_wide.cu``, the recurrence over those gates with
-    ``W_hh`` split over a cluster of 8 blocks. With ``bilstm_gates``, the
-    counterpart of ``_fwd_pallas`` at these widths. Plain twin:
+  * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` are the
+    recurrence over those gates with ``W_hh`` split over a cluster of 8
+    blocks, by one of two kernels (``wide_fwd_kernel``):
+    ``bilstm_fwd_wide_mma`` and ``bilstm_fwd_wide_train_mma`` launch
+    ``csrc/bilstm_fwd_wide_mma.cu`` (bf16, H = 128 and 256: the product on
+    the tensor cores), the two wrappers themselves launch
+    ``csrc/bilstm_fwd_wide.cu`` for the rest (f32, and the bf16 widths the
+    tensor-core forward does not take; CUDA cores). With ``bilstm_gates``,
+    the counterpart of ``_fwd_pallas`` at these widths. Plain twin of both:
     ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
@@ -54,10 +59,12 @@ packed, fused or lite kernels:
     cores). Plain twin of both: ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
-  two kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
+  three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
   ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 32 == 0: a split-K GEMM on the
-  tensor cores), ``bilstm_wgrad`` itself launches ``csrc/bilstm_wgrad.cu``
-  for the rest (f32, CUDA cores). Plain twin of both:
+  tensor cores), ``bilstm_wgrad_f32`` launches ``csrc/bilstm_wgrad_f32.cu``
+  (f32, H % 32 == 0: the same GEMM in three tf32 passes), ``bilstm_wgrad``
+  itself launches ``csrc/bilstm_wgrad.cu`` for the rest (f32 at other
+  widths, CUDA cores). Plain twin of all three:
   ``ops/lstm.py:bidir_layer_wgrad``.
 
 Beside the layer kernels, the time-major recurrence op
@@ -98,13 +105,14 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards, ``bilstm_wgrad``, ``bilstm_gates``, ``bilstm_bwd_lite``,
-``lstm_recurrence_bwd`` and ``lstm_recurrence_wgrad``.
+the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_gates``,
+``bilstm_bwd_lite``, ``lstm_recurrence_bwd`` and ``lstm_recurrence_wgrad``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from fractions import Fraction
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -145,7 +153,9 @@ SMEM_LIMIT = 232448
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
 # kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
-# bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad)
+# bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
+# bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad), bilstm_wgrad_f32.cu
+# (kTileM, kTileN, kTileK, kStages, kSmem)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -191,6 +201,16 @@ GATES_MMA_SMEM = GATES_MMA_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
 # padding of its f32 xg rows (its bf16 rows take MMA_PAD)
 LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256), (16, 32, 40, 80)
 LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
+# the tensor-core wide forward: the widths and row tiles it is instantiated
+# for, and threads a block
+FWD_WIDE_MMA_WIDTHS, FWD_WIDE_MMA_ROWS = (128, 256), (16, 32, 40, 64, 80)
+FWD_WIDE_MMA_THREADS = 256
+# the f32 tensor-core wgrad (three tf32 passes): the tiles of the bf16 one,
+# cp.async stages, and its dynamic shared memory (f32 rows of 128 + 8)
+WGRAD_F32_STAGES = 4
+# waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
+WGRAD_F32_MAX_WAVES = 8
+WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -220,6 +240,8 @@ _SIGNATURES = {
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
     "bilstm_fwd_f32": ("bilstm_fwd_f32", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 8 + [_P]),
     "lstm_recurrence_bwd_f32": ("lstm_recurrence_bwd_f32", [_P] * 9 + [_I] * 7 + [_P]),
+    "bilstm_fwd_wide_mma": ("bilstm_fwd_wide_mma", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
+    "bilstm_wgrad_f32": ("bilstm_wgrad_f32", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -297,6 +319,14 @@ _CONSTANTS = {
                                  "lstm_recurrence_bwd_f32_f_pad"),
                                 (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
                                  REC_MMA_F32_PAD)),
+    "bilstm_fwd_wide_mma": (("bilstm_fwd_wide_mma_cluster", "bilstm_fwd_wide_mma_threads",
+                             "bilstm_fwd_wide_mma_pad"),
+                            (WIDE_CLUSTER, FWD_WIDE_MMA_THREADS, MMA_PAD)),
+    "bilstm_wgrad_f32": (("bilstm_wgrad_f32_tile_m", "bilstm_wgrad_f32_tile_n",
+                          "bilstm_wgrad_f32_tile_k", "bilstm_wgrad_f32_stages",
+                          "bilstm_wgrad_f32_smem"),
+                         (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
+                          WGRAD_F32_STAGES, WGRAD_F32_SMEM)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -595,41 +625,59 @@ def wgrad_check(E_parts: Sequence[int], H: int) -> None:
         )
 
 
+def _tensor_core_wgrad_check(name, takes, E_parts, H, dtype) -> None:
+    if (dtype != takes or H <= 0 or H % 32 or len(E_parts) not in (1, 2)
+            or any(e <= 0 or e % 8 for e in E_parts)):
+        raise ValueError(
+            f"{name} kernel takes {str(takes).replace('torch.', '')} with H % 32 == 0 and 1 or "
+            f"2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
+            f"E_parts={list(E_parts)}")
+
+
 def wgrad_mma_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or shape the tensor-core weight-gradient
     kernel (``csrc/bilstm_wgrad_mma.cu``) does not take: it takes bfloat16
     with H % 32 == 0 (4H whole 128-row tiles) and 1 or 2 input parts that
     are multiples of 8 wide."""
-    if (dtype != torch.bfloat16 or H <= 0 or H % 32 or len(E_parts) not in (1, 2)
-            or any(e <= 0 or e % 8 for e in E_parts)):
-        raise ValueError(
-            f"bilstm_wgrad_mma kernel takes bfloat16 with H % 32 == 0 and 1 or 2 input parts "
-            f"that are positive multiples of 8, got {dtype}, H={H}, E_parts={list(E_parts)}")
+    _tensor_core_wgrad_check("bilstm_wgrad_mma", torch.bfloat16, E_parts, H, dtype)
+
+
+def wgrad_f32_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or shape the f32 tensor-core weight-gradient
+    kernel (``csrc/bilstm_wgrad_f32.cu``) does not take: it takes float32
+    with the shapes of the bf16 one (``wgrad_mma_check``)."""
+    _tensor_core_wgrad_check("bilstm_wgrad_f32", torch.float32, E_parts, H, dtype)
 
 
 def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel a layer's weight gradients take, by shape and dtype alone:
     ``"bilstm_wgrad_mma"`` where ``wgrad_mma_check`` passes (bf16,
-    H % 32 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check`` passes (f32,
-    and the bf16 shapes the tensor-core kernel does not take); ValueError
-    naming both refusals otherwise."""
+    H % 32 == 0), ``"bilstm_wgrad_f32"`` where ``wgrad_f32_check`` passes
+    (f32, the same shapes), else ``"bilstm_wgrad"`` where ``wgrad_check``
+    passes (the shapes the tensor-core kernels do not take); ValueError
+    naming the three refusals otherwise."""
     try:
         wgrad_mma_check(E_parts, H, dtype)
         return "bilstm_wgrad_mma"
     except ValueError as mma:
         try:
-            wgrad_check(E_parts, H)
-        except ValueError as cores:
-            raise ValueError(f"{cores}; {mma}") from None
+            wgrad_f32_check(E_parts, H, dtype)
+            return "bilstm_wgrad_f32"
+        except ValueError as f32:
+            try:
+                wgrad_check(E_parts, H)
+            except ValueError as cores:
+                raise ValueError(f"{cores}; {mma}; {f32}") from None
     return "bilstm_wgrad"
 
 
 def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
                    H: int) -> Tuple[int, int, int]:
-    """``(m_tiles, n_tiles, splits)`` of the tensor-core wgrad launch: 128-row
-    tiles of the 4H gates, 128-column tiles of the E + H source columns,
-    and the split of each group's T * B / G rows that brings the grid to
-    about ``WGRAD_TARGET_BLOCKS`` blocks, no more splits than K-tiles."""
+    """``(m_tiles, n_tiles, splits)`` of the tensor-core wgrad launch (bf16
+    and f32: the same tiles): 128-row tiles of the 4H gates, 128-column
+    tiles of the E + H source columns, and the split of each group's
+    T * B / G rows that brings the grid to about ``WGRAD_TARGET_BLOCKS``
+    blocks, no more splits than K-tiles."""
     m_tiles = 4 * H // WGRAD_MMA_TILE_M
     n_tiles = -(-(sum(E_parts) + H) // WGRAD_MMA_TILE_N)
     rows = T * (B // G)
@@ -638,11 +686,30 @@ def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
     return m_tiles, n_tiles, splits
 
 
+def wgrad_f32_plan(T: int, B: int, G: int, E_parts: Sequence[int], H: int,
+                   sms: int) -> Tuple[int, int, int]:
+    """``(m_tiles, n_tiles, splits)`` of the f32 tensor-core wgrad launch:
+    the tiles of ``wgrad_mma_plan``, and the split whose blocks fill the
+    card's ``sms`` SMs in whole waves best. The kernel holds one block an SM
+    (255 registers a thread), so a launch costs about ceil(blocks / sms)
+    waves of ``1 / splits`` of a group's rows each: the split with the least
+    of that, among at most ``WGRAD_F32_MAX_WAVES`` waves of blocks and no
+    more splits than K-tiles, the smaller split on a tie."""
+    m_tiles, n_tiles, _ = wgrad_mma_plan(T, B, G, E_parts, H)
+    per_split = m_tiles * n_tiles * 2 * G
+    k_tiles = -(-T * (B // G) // WGRAD_MMA_TILE_K)
+    most = max(1, min(k_tiles, WGRAD_F32_MAX_WAVES * sms // per_split))
+    splits = min(range(1, most + 1),
+                 key=lambda s: (Fraction(-(-per_split * s // sms), s), s))
+    return m_tiles, n_tiles, splits
+
+
 def wgrad_mma_rows(T: int, B: int, G: int, splits: int, split: int, g: int, d: int):
     """The rows the tensor-core wgrad's blocks of ``split`` read for weight
     group ``g`` and direction ``d``, as ``(t, b, t_prev)`` with ``t_prev``
     the position of the h_prev row (None past the ends: zeros); the same
-    integer arithmetic as ``csrc/bilstm_wgrad_mma.cu``."""
+    integer arithmetic as ``csrc/bilstm_wgrad_mma.cu`` and
+    ``csrc/bilstm_wgrad_f32.cu``."""
     Bg = B // G
     rows = T * Bg
     out = []
@@ -725,6 +792,36 @@ def lite_kernel(H: int, dtype: torch.dtype) -> str:
     return "bilstm_bwd_lite"
 
 
+def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or width the tensor-core wide forward
+    (``csrc/bilstm_fwd_wide_mma.cu``) does not take: it takes bfloat16 at
+    H in ``FWD_WIDE_MMA_WIDTHS`` (whole 8-unit groups in each of the
+    cluster's 8 blocks, and its 8 warps evenly over them)."""
+    if dtype != torch.bfloat16 or H not in FWD_WIDE_MMA_WIDTHS:
+        raise ValueError(
+            f"bilstm_fwd_wide_mma kernel takes bfloat16 with H in {list(FWD_WIDE_MMA_WIDTHS)}, "
+            f"got {dtype}, H={H}")
+
+
+def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
+    """The kernel the wide route's recurrence takes, by width and dtype
+    alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
+    (bf16, H = 128 or 256), else ``"bilstm_fwd_wide"`` where ``wide_check``
+    passes (f32, and the bf16 widths the tensor-core forward does not take);
+    ValueError naming both refusals otherwise."""
+    try:
+        fwd_wide_mma_check(H, dtype)
+        return "bilstm_fwd_wide_mma"
+    except ValueError as mma:
+        try:
+            if dtype not in _DTYPE_CODES:
+                raise ValueError(f"bilstm_fwd_wide kernel takes float32 or bfloat16, got {dtype}")
+            wide_check(H)
+        except ValueError as cores:
+            raise ValueError(f"{cores}; {mma}") from None
+    return "bilstm_fwd_wide"
+
+
 def _lite_mma_part_stride(rows: int) -> int:
     # at least `rows` and 8 mod 32 (csrc/bilstm_bwd_lite_mma.cu:part_stride)
     return rows + (40 - rows % 32) % 32
@@ -737,8 +834,14 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     gate cotangents). ``kind`` "lite_mma" (the tensor-core sweep, a row tile
     of ``rows``): the bf16 slice and, per row, two h_prev buffers, the f32
     xg slice, c_prev and two dy streams, the bf16 dgates tile, and two
-    buffers of the f32 partial dh of all H units."""
+    buffers of the f32 partial dh of all H units. ``kind`` "fwd_mma" (the
+    tensor-core forward, a row tile of ``rows``): the bf16 slice and, per
+    row, two bf16 h tiles and the block's new h and c staged (both variants
+    take the same, so they take the same tile)."""
     U = H // WIDE_CLUSTER
+    if kind == "fwd_mma":
+        BR, pad = rows, MMA_PAD
+        return 4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2 + 2 * BR * (U + pad) * 2
     if kind == "lite_mma":
         BR, pad = rows, MMA_PAD
         return (4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2
@@ -762,15 +865,17 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     clusters (one per row tile and each of the ``dirs`` directions) fill the
     card in the fewest waves, and among those the smallest tile; ``rows``
     is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
-    row tile (``LITE_MMA_ROWS``, multiples of 8) for ``kind`` "lite_mma".
+    row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
+    ``FWD_WIDE_MMA_ROWS`` for "fwd_mma") for the tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
+    rows = {"lite_mma": LITE_MMA_ROWS, "fwd_mma": FWD_WIDE_MMA_ROWS}.get(kind, WIDE_ROWS)
     best = None
-    for R in LITE_MMA_ROWS if kind == "lite_mma" else WIDE_ROWS:
+    for R in rows:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = mma_tiles(B, G, R) if kind == "lite_mma" else wide_tiles(B, G, R)
+        tiles = mma_tiles(B, G, R) if kind.endswith("_mma") else wide_tiles(B, G, R)
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -784,12 +889,13 @@ _cluster_counts: Dict[tuple, int] = {}
 # smem) of each wide kernel's C entry, when it only reports occupancy
 _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
                 "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
+                "bilstm_fwd_wide_mma": [None] * 9,
                 "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
-    # the tensor-core sweep's C entry takes no dtype code (bf16 only)
-    lead = [] if name == "bilstm_bwd_lite_mma" else [_DTYPE_CODES[dtype]]
+    # the tensor-core kernels' C entries take no dtype code (bf16 only)
+    lead = [] if name.endswith("_mma") else [_DTYPE_CODES[dtype]]
 
     def count(R: int, smem: int) -> int:
         key = (name, dtype, H, R, smem, dev.index)
@@ -1376,21 +1482,23 @@ def bilstm_wgrad(
     ``dW_hh (2, G, 4H, H)``, f32.
 
     On the card the products run on the kernel ``wgrad_kernel`` names for
-    the shapes and dtype: the tensor-core one through
-    :func:`bilstm_wgrad_mma` (whose ``.launches`` then counts it), or
-    ``csrc/bilstm_wgrad.cu`` here. ``kernel="bilstm_wgrad"`` asks for the
-    latter by name (to time it beside the other); a shape it does not take
-    raises."""
+    the shapes and dtype: a tensor-core one through :func:`bilstm_wgrad_mma`
+    (bf16) or :func:`bilstm_wgrad_f32` (f32), whose ``.launches`` then
+    counts it, or ``csrc/bilstm_wgrad.cu`` here. ``kernel="bilstm_wgrad"``
+    asks for the latter by name (to time it beside the others); a shape it
+    does not take raises."""
     x_parts = tuple(x_parts)
     if not dgc.is_cuda:
         return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
-    if kernel not in (None, "bilstm_wgrad", "bilstm_wgrad_mma"):
+    tensor_core = {"bilstm_wgrad_mma": bilstm_wgrad_mma, "bilstm_wgrad_f32": bilstm_wgrad_f32}
+    if kernel not in (None, "bilstm_wgrad", *tensor_core):
         raise ValueError(f"bilstm_wgrad: no weight-gradient kernel named {kernel!r}")
     cd = dgc.dtype
     E_parts = [p.shape[-1] for p in x_parts]
     H = hs_f.shape[-1]
-    if (kernel or wgrad_kernel(E_parts, H, cd)) == "bilstm_wgrad_mma":
-        return bilstm_wgrad_mma(dgc, x_parts, hs_f, hs_b, groups)
+    name = kernel or wgrad_kernel(E_parts, H, cd)
+    if name in tensor_core:
+        return tensor_core[name](dgc, x_parts, hs_f, hs_b, groups)
     if cd not in _DTYPE_CODES:
         raise ValueError(f"bilstm_wgrad kernel takes float32 or bfloat16, got {cd}")
     if len(x_parts) not in (1, 2):
@@ -1433,6 +1541,51 @@ def bilstm_wgrad(
 bilstm_wgrad.launches = 0
 
 
+def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups):
+    """A tensor-core weight-gradient launch (``wrapper.__name__`` names the
+    kernel and its C entry) after ``check`` of its dtype and shapes, split
+    by ``wgrad_mma_plan`` (bf16) or ``wgrad_f32_plan`` (f32)."""
+    x_parts = tuple(x_parts)
+    _no_graph(dgc, *x_parts, hs_f, hs_b)
+    if not dgc.is_cuda:
+        return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
+    name = wrapper.__name__
+    cd = dgc.dtype
+    dev = dgc.device
+    T, B = x_parts[0].shape[:2]
+    H = hs_f.shape[-1]
+    G = groups
+    E_parts = [p.shape[-1] for p in x_parts]
+    check(E_parts, H, cd)
+    if B % G:
+        raise ValueError(f"{name} kernel: batch {B} is not a multiple of {G} groups")
+    _check("dgc", dgc, (2, T, B, 4 * H), cd, dev)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("hs_f", hs_f, (T, B, H), cd, dev)
+    _check("hs_b", hs_b, (T, B, H), cd, dev)
+    E = sum(E_parts)
+    if B * T == 0:
+        return (torch.zeros((2, 4 * H, E), dtype=torch.float32, device=dev),
+                torch.zeros((2, G, 4 * H, H), dtype=torch.float32, device=dev))
+    if name == "bilstm_wgrad_f32":
+        _, _, splits = wgrad_f32_plan(T, B, G, E_parts, H, _sm_count(dev))
+    else:
+        _, _, splits = wgrad_mma_plan(T, B, G, E_parts, H)
+    partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(_kernels(name), name)(
+            dgc.data_ptr(), _ptr(x_parts, 0), _ptr(x_parts, 1),
+            E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+            hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
+            T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    wrapper.launches += 1
+    total = partial.sum(dim=0)  # (2, G, 4H, E + H)
+    return total[..., :E].sum(dim=1), total[..., E:].contiguous()
+
+
 def bilstm_wgrad_mma(
     dgc: torch.Tensor,
     x_parts: Sequence[torch.Tensor],
@@ -1447,44 +1600,33 @@ def bilstm_wgrad_mma(
     range included, so the ``torch.empty`` partials are whole; an empty
     batch returns zeros. Its outputs carry no graph, so under grad mode it
     refuses an operand that requires grad, on the CPU too."""
-    x_parts = tuple(x_parts)
-    _no_graph(dgc, *x_parts, hs_f, hs_b)
-    if not dgc.is_cuda:
-        return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
-    cd = dgc.dtype
-    dev = dgc.device
-    T, B = x_parts[0].shape[:2]
-    H = hs_f.shape[-1]
-    G = groups
-    E_parts = [p.shape[-1] for p in x_parts]
-    wgrad_mma_check(E_parts, H, cd)
-    if B % G:
-        raise ValueError(f"bilstm_wgrad_mma kernel: batch {B} is not a multiple of {G} groups")
-    _check("dgc", dgc, (2, T, B, 4 * H), cd, dev)
-    for k, p in enumerate(x_parts):
-        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
-    _check("hs_f", hs_f, (T, B, H), cd, dev)
-    _check("hs_b", hs_b, (T, B, H), cd, dev)
-    E = sum(E_parts)
-    if B * T == 0:
-        return (torch.zeros((2, 4 * H, E), dtype=torch.float32, device=dev),
-                torch.zeros((2, G, 4 * H, H), dtype=torch.float32, device=dev))
-    _, _, splits = wgrad_mma_plan(T, B, G, E_parts, H)
-    partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernels("bilstm_wgrad_mma").bilstm_wgrad_mma(
-            dgc.data_ptr(), _ptr(x_parts, 0), _ptr(x_parts, 1),
-            E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
-            hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
-            T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error("bilstm_wgrad_mma", err)
-    bilstm_wgrad_mma.launches += 1
-    total = partial.sum(dim=0)  # (2, G, 4H, E + H)
-    return total[..., :E].sum(dim=1), total[..., E:].contiguous()
+    return _wgrad_tensor_core(bilstm_wgrad_mma, wgrad_mma_check, dgc, x_parts, hs_f, hs_b,
+                              groups)
 
 
 bilstm_wgrad_mma.launches = 0
+
+
+def bilstm_wgrad_f32(
+    dgc: torch.Tensor,
+    x_parts: Sequence[torch.Tensor],
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's weight gradients in f32 on the tensor cores, three tf32
+    passes a product (``csrc/bilstm_wgrad_f32.cu``); the contract of
+    :func:`bilstm_wgrad`. Takes the shapes ``wgrad_f32_check`` takes
+    (float32, H % 32 == 0) and raises for the rest; split by
+    ``wgrad_f32_plan``; the whole partials and the empty batch as in
+    :func:`bilstm_wgrad_mma`. Its
+    outputs carry no graph, so under grad mode it refuses an operand that
+    requires grad, on the CPU too."""
+    return _wgrad_tensor_core(bilstm_wgrad_f32, wgrad_f32_check, dgc, x_parts, hs_f, hs_b,
+                              groups)
+
+
+bilstm_wgrad_f32.launches = 0
 
 
 def _gates_operands(x_parts, w_ih, bias, cd):
@@ -1604,9 +1746,11 @@ def _wide_operands(xg, lengths, w_hh, cd, what):
     return dev, T, B, H, G, w_hh
 
 
-def _fwd_wide_launch(xg, lengths, w_hh, cd, with_states):
-    _no_graph(xg, w_hh)
-    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, "bilstm_fwd_wide")
+def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
+    """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide" or
+    "bilstm_fwd_wide_mma") on the row tile its plan picks, counted on
+    ``wrapper``; an empty batch launches nothing."""
+    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
     hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
     hs_b = torch.empty_like(hs_f)
     cs_f = torch.empty_like(hs_f) if with_states else None
@@ -1616,17 +1760,28 @@ def _fwd_wide_launch(xg, lengths, w_hh, cd, with_states):
     outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
     if B == 0:
         return outs
-    R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters("bilstm_fwd_wide", cd, H, dev))
+    mma = name == "bilstm_fwd_wide_mma"
+    rows, tiles, smem = wide_plan("fwd_mma" if mma else "fwd", B, G, H,
+                                  _max_clusters(name, cd, H, dev))
     with torch.cuda.device(dev):
-        err = _kernels("bilstm_fwd_wide").bilstm_fwd_wide(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            hs_f.data_ptr(), hs_b.data_ptr(),
-            cs_f.data_ptr() if with_states else None, cs_b.data_ptr() if with_states else None,
+        err = getattr(_kernels(name), name)(
+            *([] if mma else [_DTYPE_CODES[cd]]), rows, xg.data_ptr(), lengths.data_ptr(),
+            w_hh.data_ptr(), hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
             hn.data_ptr(), cn.data_ptr(), T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
         )
-    _raise_on_error("bilstm_fwd_wide", err)
+    _raise_on_error(name, err)
+    wrapper.launches += 1
     return outs
+
+
+def _fwd_wide_dispatch(wrapper, mma_wrapper, xg, lengths, w_hh, cd, kernel, with_states):
+    if kernel not in (None, "bilstm_fwd_wide", "bilstm_fwd_wide_mma"):
+        raise ValueError(f"bilstm_fwd_wide: no wide forward kernel named {kernel!r}")
+    if (kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)) == "bilstm_fwd_wide_mma":
+        return mma_wrapper(xg, lengths, w_hh, cd)
+    _no_graph(xg, w_hh)
+    return _fwd_wide_launch(wrapper, "bilstm_fwd_wide", xg, lengths, w_hh, cd, with_states)
 
 
 def bilstm_fwd_wide(
@@ -1634,6 +1789,7 @@ def bilstm_fwd_wide(
     lengths: torch.Tensor,
     w_hh: torch.Tensor,
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's recurrence over its input gates, eval variant; the
     contract of ``ops/lstm.py:bidir_recurrence``.
@@ -1643,12 +1799,18 @@ def bilstm_fwd_wide(
         H)`` in ``compute_dtype``.
     :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype``, ``hn, cn
         (2, B, H)`` f32.
+
+    On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
+    its width and dtype: the tensor-core one through
+    :func:`bilstm_fwd_wide_mma` (bf16 at H = 128 and 256; its ``.launches``
+    then counts it), or ``csrc/bilstm_fwd_wide.cu`` here.
+    ``kernel="bilstm_fwd_wide"`` asks for the latter by name (to time it
+    beside the other).
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
-    outs = _fwd_wide_launch(xg, lengths, w_hh, compute_dtype, False)
-    bilstm_fwd_wide.launches += 1
-    return outs
+    return _fwd_wide_dispatch(bilstm_fwd_wide, bilstm_fwd_wide_mma, xg, lengths, w_hh,
+                              compute_dtype, kernel, False)
 
 
 bilstm_fwd_wide.launches = 0
@@ -1659,17 +1821,59 @@ def bilstm_fwd_wide_train(
     lengths: torch.Tensor,
     w_hh: torch.Tensor,
     compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_fwd_wide`: also the cell streams
-    ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``."""
+    ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``; its
+    tensor-core kernel through :func:`bilstm_fwd_wide_train_mma`."""
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
-    outs = _fwd_wide_launch(xg, lengths, w_hh, compute_dtype, True)
-    bilstm_fwd_wide_train.launches += 1
-    return outs
+    return _fwd_wide_dispatch(bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, xg, lengths,
+                              w_hh, compute_dtype, kernel, True)
 
 
 bilstm_fwd_wide_train.launches = 0
+
+
+def _fwd_wide_mma(wrapper, xg, lengths, w_hh, cd, with_states):
+    _no_graph(xg, w_hh)
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, cd, with_states=with_states)
+    fwd_wide_mma_check(xg.shape[-1] // 4, cd)
+    return _fwd_wide_launch(wrapper, "bilstm_fwd_wide_mma", xg, lengths, w_hh, cd, with_states)
+
+
+def bilstm_fwd_wide_mma(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's recurrence over its input gates on the tensor cores
+    (``csrc/bilstm_fwd_wide_mma.cu``), eval variant; the contract of
+    :func:`bilstm_fwd_wide`. Takes the widths ``fwd_wide_mma_check`` takes
+    (bfloat16, H = 128 and 256) and raises for the rest; the row tile is
+    ``wide_plan("fwd_mma", ...)``'s. Its outputs carry no graph, so under
+    grad mode it refuses an operand that requires grad, on the CPU too."""
+    return _fwd_wide_mma(bilstm_fwd_wide_mma, xg, lengths, w_hh, compute_dtype, False)
+
+
+bilstm_fwd_wide_mma.launches = 0
+
+
+def bilstm_fwd_wide_train_mma(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_fwd_wide_mma`: also the cell
+    streams ``cs_f, cs_b (T, B, H)`` in bfloat16, after ``hn, cn``. It gives
+    the eval variant's ``hs`` bit for bit."""
+    return _fwd_wide_mma(bilstm_fwd_wide_train_mma, xg, lengths, w_hh, compute_dtype, True)
+
+
+bilstm_fwd_wide_train_mma.launches = 0
 
 
 def _lite_operands(what, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd):

@@ -48,7 +48,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
-                       "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma"}
+                       "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
+                       "bilstm_fwd_wide_mma", "bilstm_wgrad_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -66,7 +67,7 @@ def test_every_kernel_source_is_built_and_bound():
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
                       ("bilstm_gates_mma", "mma_bf16("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
-                      ("lstm_recurrence_bwd_f32", "mma_tf32(")):
+                      ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
@@ -76,12 +77,20 @@ def test_every_kernel_source_is_built_and_bound():
     text = (_build.CSRC / "bilstm_bwd_lite_mma.cu").read_text().rsplit("#include", 1)[1]
     assert text.count("mma_bf16(") == 2 and "ldmatrix_x4_trans(" in text
     assert "map_shared_rank(" in text and "launch_wide(" in text
+    # so does the tensor-core wide forward: its gate product on mma.sync, the
+    # new h pushed to every block of the cluster through distributed shared memory
+    text = (_build.CSRC / "bilstm_fwd_wide_mma.cu").read_text()
+    assert '#include "bilstm_mma.cuh"' in text
+    text = text.rsplit("#include", 1)[1]
+    assert text.count("mma_bf16(") == 1 and "map_shared_rank(" in text and "launch_wide(" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the
-    # small weights in the m16 tile's rows 8-15 (two mma, four terms)
+    # small weights in the m16 tile's rows 8-15 (two mma, four terms); the
+    # weight gradient splits each fragment once after loading it (two B
+    # fragments, the four A fragments in a loop) and runs its three passes
     for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_fwd_f32", 3, 6),
-                             ("lstm_recurrence_bwd_f32", 5, 4)):
+                             ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3)):
         text = (_build.CSRC / f"{name}.cu").read_text().rsplit("#include", 1)[1]
         assert text.count("mma_tf32(") == mma and text.count("split_tf32(") == split, name
 

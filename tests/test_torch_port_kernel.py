@@ -2,9 +2,9 @@
 the eval and train forward, the backward sweep, the weight gradients, the
 wide route's input gates, cluster forward and lite sweep, the time-major
 recurrence op's forward, sweep and weight gradient, the bf16
-tensor-core forward, sweeps and weight gradients, and the f32 tensor-core
-forward and sweeps in three tf32 passes, with the dispatch that picks
-them), their plain
+tensor-core forwards (the wide one too), sweeps and weight gradients, and
+the f32 tensor-core forward, sweeps and weight gradients in three tf32
+passes, with the dispatch that picks them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
 autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
 
@@ -597,10 +597,15 @@ def test_fwd_mma_plan(H, E):
         ([32, 32], 32, torch.bfloat16, "bilstm_wgrad_mma"),
         ([256], 256, torch.bfloat16, "bilstm_wgrad_mma"),
         ([256, 256], 256, torch.bfloat16, "bilstm_wgrad_mma"),
-        ([64], 64, torch.float32, "bilstm_wgrad"),     # f32 keeps the CUDA-core kernel
-        ([256, 256], 256, torch.float32, "bilstm_wgrad"),
+        ([64], 64, torch.float32, "bilstm_wgrad_f32"),  # f32: three tf32 passes
+        ([256, 256], 256, torch.float32, "bilstm_wgrad_f32"),
         ([16], 16, torch.bfloat16, "bilstm_wgrad"),    # 4H not whole 128-row tiles
         ([64], 24, torch.bfloat16, None),
+        ([32, 32], 32, torch.float32, "bilstm_wgrad_f32"),
+        ([128], 128, torch.float32, "bilstm_wgrad_f32"),
+        ([80], 80, torch.float32, "bilstm_wgrad"),     # H % 32 != 0 keeps the CUDA-core kernel
+        ([16], 16, torch.float32, "bilstm_wgrad"),
+        ([64], 24, torch.float32, None),
     ],
 )
 def test_wgrad_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
@@ -1107,6 +1112,166 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         lstm_cuda.bilstm_gates_mma(parts, w_ih.clone().requires_grad_(), bias, cd)
 
 
+# ----------- the tensor-core wide forward (bf16) and the f32 wgrad (3xTF32)
+@pytest.mark.parametrize(
+    "H,dtype,kernel",
+    [
+        (256, torch.bfloat16, "bilstm_fwd_wide_mma"),
+        (128, torch.bfloat16, "bilstm_fwd_wide_mma"),
+        (256, torch.float32, "bilstm_fwd_wide"),   # f32 keeps the CUDA-core forward
+        (128, torch.float32, "bilstm_fwd_wide"),
+        (192, torch.bfloat16, "bilstm_fwd_wide"),  # 8 warps not even over 3 unit groups
+        (96, torch.bfloat16, "bilstm_fwd_wide"),   # no whole 8-unit groups a block
+        (32, torch.bfloat16, "bilstm_fwd_wide"),
+        (80, torch.bfloat16, None),
+        (288, torch.float32, None),
+        (256, torch.float16, None),
+    ],
+)
+def test_wide_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError, match="; bilstm_fwd_wide_mma kernel takes bfloat16"):
+            lstm_cuda.wide_fwd_kernel(H, dtype)
+        return
+    assert lstm_cuda.wide_fwd_kernel(H, dtype) == kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
+    """The wide-forward and weight-gradient dispatches pick kernels inside
+    a route and never move a layer between routes, over the sweep of
+    ``test_tensor_core_wide_kernels_change_no_route``: every (E_parts, H)
+    keeps its route, every wide layer has a forward kernel (the tensor-core
+    one in bf16 at H = 128 and 256), and every layer whose widths are whole
+    128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
+    too); the others keep ``bilstm_wgrad.cu`` where it takes them."""
+    bf16 = dtype == torch.bfloat16
+    for H in range(8, 272, 8):
+        for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
+                        [32, 32], [64, 64], [128, 128], [256, 256]):
+            try:
+                route = lstm_cuda.layer_route(E_parts, H, dtype)
+            except ValueError:
+                route = None
+            assert route == _route_without_the_wide_dispatch(E_parts, H, dtype), (E_parts, H)
+            if route is None:
+                continue
+            if route == "wide":
+                assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
+                    "bilstm_fwd_wide_mma" if bf16 and H in (128, 256) else "bilstm_fwd_wide")
+            try:
+                wgrad = lstm_cuda.wgrad_kernel(E_parts, H, dtype)
+            except ValueError:
+                wgrad = None
+            if H % 32 == 0:
+                assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
+            else:
+                assert wgrad in ("bilstm_wgrad", None), (E_parts, H)
+    for E_parts in ([256], [256, 256]):
+        assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
+
+
+def test_fwd_wide_mma_plan_fills_the_card_in_fewest_waves():
+    """The tensor-core wide forward's shared memory per row tile, and its
+    plan at the scaled train shapes with 15 clusters on the card at once:
+    400 rows in 5 groups of 80 (layer 0) and in 1 group (the stacked
+    layers)."""
+    fifteen = lambda R, smem: 15  # noqa: E731
+    # H = 256, 80-row tile: the bf16 W_hh slice (128 permuted gate rows of
+    # 256 + 8), two bf16 h tiles (80 rows of 256 + 8), the staged new h and
+    # c of the block's 32 units (80 rows of 32 + 8 each)
+    assert lstm_cuda.wide_smem("fwd_mma", 256, 80) == (
+        128 * 264 * 2 + 2 * 80 * 264 * 2 + 2 * 80 * 40 * 2) == 164864
+    assert lstm_cuda.wide_smem("fwd_mma", 128, 80) == (
+        64 * 136 * 2 + 2 * 80 * 136 * 2 + 2 * 80 * 24 * 2) == 68608
+    for H in lstm_cuda.FWD_WIDE_MMA_WIDTHS:
+        assert all(lstm_cuda.wide_smem("fwd_mma", H, r) <= lstm_cuda.SMEM_LIMIT
+                   for r in lstm_cuda.FWD_WIDE_MMA_ROWS)
+    assert all(r % 8 == 0 for r in lstm_cuda.FWD_WIDE_MMA_ROWS)
+    # G = 5: one 80-row tile a group, 10 clusters, one wave (64-row tiles
+    # would make two a group, 20 clusters)
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 256, fifteen) == (80, 5, 164864)
+    # G = 1: 64-row tiles make 7 tiles, 14 clusters: the smallest tile of one wave
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 1, 256, fifteen) == (64, 7, 145408)
+    # a card that holds 8 clusters: 80-row tiles still take the fewest waves
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 256, lambda R, smem: 8)[:2] == (80, 5)
+    # a small batch: the smallest tile of the one wave
+    assert lstm_cuda.wide_plan("fwd_mma", 40, 1, 256, fifteen)[:2] == (16, 3)
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 128, fifteen)[:2] == (80, 5)
+    # the H100's 132 SMs in clusters of 8 hold 15 clusters of one block an SM
+    # and 30 of the tiles compiled for two (shared memory for two blocks an
+    # SM): the 32-row tiles put both layer shapes in one wave
+    h100 = lambda R, smem: 30 if 2 * (smem + 1024) <= 233472 else 15  # noqa: E731
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 256, h100) == (32, 15, 106496)
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 1, 256, h100)[:2] == (32, 13)
+
+
+@pytest.mark.parametrize("T,B,G,E_parts,H,want", [
+    (1500, 400, 5, [64], 64, (2, 1, 33)), (1500, 400, 1, [64, 64], 64, (2, 2, 33)),
+    (1500, 400, 5, [256], 256, (8, 4, 2)), (1500, 400, 1, [256, 256], 256, (8, 6, 11)),
+    (3, 400, 4, [64], 64, (2, 1, 8)), (1, 27, 3, [32, 32], 32, (1, 1, 1))])
+def test_wgrad_f32_plan_fills_whole_waves(T, B, G, E_parts, H, want):
+    """The f32 tensor-core wgrad takes the bf16 kernel's tiles and, one block
+    an SM on 132 SMs, the split with the fewest waves per share of the rows
+    among at most WGRAD_F32_MAX_WAVES waves of blocks and no more splits
+    than 32-row K-tiles (the manuscript's layer 0: 33 splits of 20 blocks,
+    five whole waves, where the bf16 plan's 27 would leave a fifth wave of
+    12 blocks); at T = 3 more splits than positions."""
+    from fractions import Fraction
+
+    got = lstm_cuda.wgrad_f32_plan(T, B, G, E_parts, H, 132)
+    assert got == want
+    m_tiles, n_tiles, splits = got
+    assert (m_tiles, n_tiles) == lstm_cuda.wgrad_mma_plan(T, B, G, E_parts, H)[:2]
+    per_split = m_tiles * n_tiles * 2 * G
+    most = min(-(-T * (B // G) // lstm_cuda.WGRAD_MMA_TILE_K),
+               lstm_cuda.WGRAD_F32_MAX_WAVES * 132 // per_split)
+    assert 1 <= splits <= max(1, most)
+
+    def cost(s):
+        return Fraction(-(-per_split * s // 132), s)
+
+    assert all(cost(splits) <= cost(s) for s in range(1, most + 1))
+    # one block an SM: its shared memory alone leaves no room for a second
+    assert lstm_cuda.WGRAD_F32_SMEM > lstm_cuda.SMEM_LIMIT // 2
+
+
+def test_wide_forward_mma_and_wgrad_f32_wrappers_take_plain_versions_on_cpu():
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(6, 4, [128], 128, 2, cd,
+                                                          torch.device("cpu"))
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_f32)
+    before = [f.launches for f in wrappers]
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    for got in (lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    f32 = layer_case(5, 6, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
+    parts32 = f32[0]
+    hs_f, hs_b = bidir_layer(*f32[:5], torch.float32)[:2]
+    dgc = torch.rand(2, 5, 6, 128, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    ref = bidir_layer_wgrad(dgc, parts32, hs_f, hs_b, 2)
+    for got in (lstm_cuda.bilstm_wgrad_f32(dgc, parts32, hs_f, hs_b, 2),
+                lstm_cuda.bilstm_wgrad(dgc, parts32, hs_f, hs_b, 2, kernel="bilstm_wgrad")):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_fwd_wide_mma(xg.clone().requires_grad_(), lengths, w_hh, cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh.clone().requires_grad_(), cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_wgrad_f32(dgc.clone().requires_grad_(), parts32, hs_f, hs_b, 2)
+    with torch.no_grad():
+        lstm_cuda.bilstm_fwd_wide_mma(xg.clone().requires_grad_(), lengths, w_hh, cd)
+        lstm_cuda.bilstm_wgrad_f32(dgc.clone().requires_grad_(), parts32, hs_f, hs_b, 2)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -1210,8 +1375,9 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Input gates, the cluster forward (both variants), the lite sweep
     and wgrad against their plain versions. Groups of 12, 15 and 8 rows
     leave short row tiles inside each group. In bf16 the gates and (at
-    H = 128 and 256) the sweep are the tensor-core kernels, counted on
-    their own wrappers, and the CUDA-core ones are held by name too."""
+    H = 128 and 256) the forward and the sweep are the tensor-core kernels,
+    counted on their own wrappers, and the CUDA-core ones are held by name
+    too; in f32 wgrad is the 3xTF32 kernel at every width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -1225,17 +1391,25 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
 
     wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite,
-                lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma)
+                lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32)
     before = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
     close([xg], [input_gates(parts, w_ih, bias, dtype)])
     gates_mma = lstm_cuda.gates_kernel(E_parts, H, dtype) == "bilstm_gates_mma"
     lite_mma = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma"
+    fwd_mma = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma"
     assert gates_mma == (dtype == torch.bfloat16)
-    assert lite_mma == (dtype == torch.bfloat16 and H in (128, 256))
+    assert lite_mma == fwd_mma == (dtype == torch.bfloat16 and H in (128, 256))
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
     close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
+    if fwd_mma:
+        close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
+              ref)
+        close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
+              ref[:4])
     hs_f, hs_b, _, _, cs_f, cs_b = ref
     ny = 2 if len(E_parts) == 1 else 1
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
@@ -1250,8 +1424,10 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
           bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
     torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        1, 1, 1, 1, int(gates_mma), int(lite_mma)]
+        1, 1, 1, 1, int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma), 0, int(bf16),
+        int(not bf16)]
 
 
 @pytest.mark.cuda
@@ -1322,6 +1498,175 @@ def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
     for name, grad in got.items():
         ref = want[name]
         assert float((grad.cpu() - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B,rows", [(256, 5, 60, 16), (256, 5, 60, 80), (256, 1, 70, 64),
+                                        (256, 3, 27, 32), (256, 1, 70, 40), (128, 2, 30, 80),
+                                        (128, 1, 20, 40), (128, 5, 60, 16)])
+def test_fwd_wide_mma_row_tiles_match_plain_on_card(cuda_device, monkeypatch, H, G, B, rows, T):
+    """The tensor-core wide forward at each row tile it is built for (pinned
+    with monkeypatch on the plan's candidates), both variants against the
+    plain recurrence in bf16; groups of 12, 70, 9, 15, 20 rows leave short
+    tiles, and lengths of 0, 1 and T. The eval and train variants give the
+    same hs bits."""
+    monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_ROWS", (rows,))
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    before = (lstm_cuda.bilstm_fwd_wide_mma.launches, lstm_cuda.bilstm_fwd_wide_train_mma.launches)
+    got = lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd)
+    torch.cuda.synchronize()
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    assert (lstm_cuda.bilstm_fwd_wide_mma.launches,
+            lstm_cuda.bilstm_fwd_wide_train_mma.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E_parts,G", [([256], 5), ([256, 256], 1)])
+def test_fwd_wide_mma_matches_plain_at_the_scaled_shape_on_card(cuda_device, E_parts, G):
+    """The scaled step's layers (400 rows, T = 1500, H = 256; layer 0 with 5
+    weight groups, a stacked layer with 1), ragged lengths: the dispatch
+    takes the tensor-core forward in both variants, which agrees with the
+    plain recurrence within 3e-2 x max(1, max|ref|) and gives the same hs
+    bits in both; the CUDA-core kernel by name agrees too."""
+    cd, H, T, B = torch.bfloat16, 256, 1500, 400
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    del parts
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    del got, ev
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
+           want, 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 3, 1])
+@pytest.mark.parametrize("E_parts,H,G,B", [
+    ([64], 64, 5, 30), ([64, 64], 64, 1, 50), ([32], 32, 3, 24), ([32, 32], 32, 1, 13),
+    ([256], 256, 5, 60), ([256, 256], 256, 1, 20), ([64], 64, 4, 400)])
+def test_wgrad_f32_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
+    """The f32 tensor-core weight gradients (three tf32 passes) against
+    their plain twin within 1e-4 x max(1, max|ref|), TF32 off in the twin:
+    1 and 2 input parts, weight groups of 6-100 rows, T = 1 (every h_prev
+    past an end), and T = 3 at 400 rows (more splits than positions). The
+    dispatch hands ``bilstm_wgrad`` to it; the CUDA-core kernel asked for by
+    name agrees."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                          seed=T + B)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd)[:2]
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    dgc = torch.rand(2, T, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    before = (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches)
+    _close(lstm_cuda.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, G), want, 1e-4)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), want, 1e-4)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches) == (
+        before[0], before[1] + 2)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E_parts,G", [([256], 5), ([256, 256], 1), ([64], 5), ([64, 64], 1)])
+def test_wgrad_f32_at_full_length_on_card(cuda_device, E_parts, G):
+    """Long K: at the train shape (400 rows, T = 1500) each (direction,
+    group) sums 120,000-600,000 rows, cut by the split-K plan; the f32
+    tensor-core kernel stays within 1e-4 x max(1, max|ref|) of the plain twin
+    (TF32 off) at the scaled and the manuscript widths."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, T, B = E_parts[0], 1500, 400
+    g = torch.Generator(device=cuda_device).manual_seed(G)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g, device=cuda_device) * 2 - 1
+
+    parts = tuple(u(T, B, e) for e in E_parts)
+    hs_f, hs_b, dgc = u(T, B, H), u(T, B, H), u(2, T, B, 4 * H)
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    got = lstm_cuda.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, G)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fwd_wide_mma_and_wgrad_f32_edges_on_card(cuda_device):
+    """An empty batch gives empty streams and zero weight gradients with no
+    launch; T = 0 gives zero final states; the other dtype and a width the
+    kernels do not take raise in the tensor-core wrappers (nothing falls
+    back), and so does an unknown kernel name."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [128], 128, 2, cd, cuda_device)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    before = (lstm_cuda.bilstm_fwd_wide_mma.launches, lstm_cuda.bilstm_wgrad_f32.launches)
+    out = lstm_cuda.bilstm_fwd_wide_mma(xg[:, :, :0].contiguous(), lengths[:0],
+                                        w_hh[:, :1].contiguous(), cd)
+    assert [tuple(t.shape) for t in out] == [(4, 0, 128), (4, 0, 128), (2, 0, 128), (2, 0, 128)]
+    empty = torch.zeros(4, 0, 64, device=cuda_device)
+    dw_ih, dw_hh = lstm_cuda.bilstm_wgrad_f32(torch.zeros(2, 4, 0, 256, device=cuda_device),
+                                              (empty,), empty, empty, 1)
+    assert not dw_ih.any() and not dw_hh.any() and dw_hh.shape == (2, 1, 256, 64)
+    assert (lstm_cuda.bilstm_fwd_wide_mma.launches,
+            lstm_cuda.bilstm_wgrad_f32.launches) == before
+    _, _, hn, cn, cs_f, _ = lstm_cuda.bilstm_fwd_wide_train_mma(xg[:, :0].contiguous(), lengths,
+                                                                w_hh, cd)
+    torch.cuda.synchronize()
+    assert not hn.any() and not cn.any() and cs_f.shape == (0, 10, 128)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+        lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh.float(), torch.float32)
+    w96 = torch.zeros(2, 384, 96, dtype=cd, device=cuda_device)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+        lstm_cuda.bilstm_fwd_wide_mma(torch.zeros(2, 4, 10, 384, device=cuda_device), lengths,
+                                      w96, cd)
+    hs = torch.zeros(4, 10, 64, dtype=cd, device=cuda_device)
+    with pytest.raises(ValueError, match="bilstm_wgrad_f32 kernel takes float32"):
+        lstm_cuda.bilstm_wgrad_f32(torch.zeros(2, 4, 10, 256, dtype=cd, device=cuda_device),
+                                   (hs,), hs, hs, 2)
+    with pytest.raises(ValueError, match="no wide forward kernel named"):
+        lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="fast")
+
+
+@pytest.mark.cuda
+def test_bf16_wide_route_model_gradients_take_the_tensor_core_forward_on_card(cuda_device):
+    """A bf16 model at embedding 128 (H = 128, the wide route) runs its
+    train forward on the tensor-core wide forward (one launch per layer,
+    none of ``bilstm_fwd_wide.cu``) beside the tensor-core gates, sweep and
+    wgrad; its gradients equal the CPU plain path's within 2^-7 x max(1,
+    max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
+                lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=torch.bfloat16, embedding_size=128)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2, 4, 2, 2, 0]
+    want = model_grads(torch.device("cpu"), dtype=torch.bfloat16, embedding_size=128)
+    for name, grad in got.items():
+        ref = want[name]
+        assert float((grad.cpu() - ref).abs().max()) <= 2 ** -7 * max(
+            1.0, float(ref.abs().max())), name
 
 
 @pytest.mark.cuda
