@@ -39,9 +39,13 @@ exits non-zero with no result):
    ``bilstm_wgrad_f32``), and the CUDA-core ones, asked for by name, are
    held too, and the twins with their products in one tf32 pass are
    recorded beside them (a control for the f32 tolerance); ragged cases (27
-   rows in 3 groups, T = 1, rows of length 0); ``bilstm_fwd.cu`` (both
-   variants), ``bilstm_bwd.cu`` and ``bilstm_wgrad.cu`` at their own main
-   path's shapes (E = H = 80, one layer, 5 groups); then each kernel, the
+   rows in 3 groups, T = 1, rows of length 0; the one-stage f32 sweep at
+   E = H = 80, T = 1 and 5); at their own main path's shapes (layer 0 of
+   the two-layer model at embedding 80: E = H = 80, 5 groups, two dy
+   streams a direction) ``bilstm_fwd.cu`` (both variants) and
+   ``bilstm_wgrad.cu`` in f32 and bf16, the one-stage 3xTF32 sweep
+   ``bilstm_bwd_f32_onestage`` in f32 (in turns with ``bilstm_bwd.cu`` by
+   name) and ``bilstm_bwd.cu`` in bf16; then each kernel, the
    new and the old in turns (new, old, old, new, in the same run), and a
    PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
@@ -56,12 +60,24 @@ exits non-zero with no result):
    CUDA-core forward, sweep and wgrad and the f32 tensor-core kernels 0;
    then 2 steps of the same model in f32 (and a profiled one), which must
    run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and
-   ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2 f32
-   steps and an eval step of a one-layer model at embedding 80, whose
-   forward (both variants), sweep and wgrad only ``bilstm_fwd.cu``,
-   ``bilstm_bwd.cu`` and ``bilstm_wgrad.cu`` take; then one step's
-   gradients on the card held against the port's CPU plain path at a small
-   size, in f32 (also at embedding 80, one layer) and in bf16;
+   ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2
+   steps and an eval step of the two-layer model at embedding 80 in f32 and
+   in bf16: layer 0's forward (both variants) ``bilstm_fwd.cu``, its wgrad
+   ``bilstm_wgrad.cu``, its sweep ``bilstm_bwd_f32_onestage`` in f32 and
+   ``bilstm_bwd.cu`` in bf16; the stacked layer padded to H = 96 on the
+   wide route; then one step's gradients (and at embedding 80 an eval step)
+   on the card held against the port's CPU plain path at a small size, in
+   f32 and bf16 (also at embedding 80, two layers);
+5b. widths — the layers the width repair opens (``ops/lstm_cuda.py:
+   padded_width``: the stacked layer at embedding 80, run at H = 96, and
+   both layers at embedding 112, run at 128), 400 rows, T = 1500, f32 and
+   bf16: ``layer_fwd`` and ``layer_bwd`` against the plain layer at the
+   true H, the kernels they ran, their times beside their bounds at the
+   true and the padded H and cuDNN at the true H; then a gradient step and
+   an eval step on the card against the CPU at small size (8 pairs,
+   T = 64), in f32 and bf16, of two-layer models at embedding 48 and 112
+   and of the recurrence backend at embedding 80 (run at 96), each with the
+   kernels it must launch;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -129,7 +145,7 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (twenty-six kernels, each with launches > 0 on
+11. the ``kernels`` line (twenty-seven kernels, each with launches > 0 on
     a main path), the card's name and power limit, and the result.
 
 The last line of standard output is
@@ -190,6 +206,7 @@ def phase_build() -> dict:
         SMEM_LIMIT,
         WGRAD_F32_SMEM,
         WGRAD_MMA_SMEM,
+        bwd_f32_onestage_plan,
         bwd_f32_plan,
         bwd_launch_plan,
         bwd_mma_plan,
@@ -228,6 +245,7 @@ def phase_build() -> dict:
         for rows in (8, 16):
             smem[f"fwd_f32 float32 E={sum(E_parts)} rows={rows}"] = fwd_f32_plan(
                 E_parts, H_SERVE, torch.float32, rows)[1]
+    smem["bwd_f32_onestage float32 E=H=80"] = bwd_f32_onestage_plan([80], 80, torch.float32)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
@@ -673,7 +691,8 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 
 
 # the f32 kernels on the tensor cores: three tf32 products for each f32 one
-TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32")
+TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
+           "bilstm_bwd_f32_onestage")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -735,16 +754,21 @@ def ragged_sweep_check(dev) -> list:
     """The tensor-core sweeps against their twin where no size is round: 27
     rows in 3 weight groups of 9 (a short tile in each group), T = 1, rows
     of length 0, both layer shapes, in bf16 (``bilstm_bwd_mma``) and in f32
-    (``bilstm_bwd_f32``)."""
+    (``bilstm_bwd_f32``); and the one-stage f32 sweep
+    (``bilstm_bwd_f32_onestage``) at E = H = 80, T = 1 and 5."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_sweep
 
-    H, B, G, T = H_SERVE, 27, 3, 1
+    B, G = 27, 3
+    cases = [(cd, i, E_parts, H_SERVE, 1) for cd in (torch.bfloat16, torch.float32)
+             for i, E_parts in enumerate(([E_SERVE], [H_SERVE, H_SERVE]))]
+    cases += [(torch.float32, 0, [80], 80, T) for T in (1, 5)]
     out = []
-    for cd, i, E_parts in ((cd, i, E_parts) for cd in (torch.bfloat16, torch.float32)
-                           for i, E_parts in enumerate(([E_SERVE], [H, H]))):
-        kernel = L.bilstm_bwd_mma if cd == torch.bfloat16 else L.bilstm_bwd_f32
-        g = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+    for cd, i, E_parts, H, T in cases:
+        kernel = (L.bilstm_bwd_mma if cd == torch.bfloat16 else
+                  L.bilstm_bwd_f32 if H <= 64 else L.bilstm_bwd_f32_onestage)
+        g = torch.Generator(device=dev).manual_seed(SEED + 70 + i if H == H_SERVE else
+                                                    SEED + 90 + T)
 
         def u(*shape, scale=1.0):
             return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
@@ -754,6 +778,8 @@ def ragged_sweep_check(dev) -> list:
         w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
         bias = u(2, 4 * H)
         lengths = torch.ones(B, dtype=torch.int32, device=dev)
+        lengths[1::4] = T
+        lengths[2::7] = min(3, T)
         lengths[::5] = 0
         ny = 2 - i
         dyf = tuple(u(T, B, H).to(cd) for _ in range(ny))
@@ -832,80 +858,106 @@ def ragged_fwd_wgrad_check(dev) -> list:
 
 
 def embedding_80_kernels(dev) -> dict:
-    """``bilstm_fwd.cu`` (both variants), ``bilstm_bwd.cu`` and
-    ``bilstm_wgrad.cu`` at the shapes of their main path, the f32 steps (and
-    an eval step) of a one-layer model at embedding 80 (E = H = 80, 5 weight
-    groups, one dy stream a direction, 400 rows, T = 1500; the tensor-core
-    kernels take H <= 64, and H % 32 == 0 for wgrad): held against their
-    plain twins with the main path's lengths (groups at 0, 1 and T), then
-    timed at full lengths beside the twins (timed once, in the check), their
-    bounds at the CUDA cores' f32 rate and cuDNN's one-layer training
-    forward, inference forward and backward for the input, and cuBLAS's
-    products for wgrad, TF32 off. One dict per kernel: "fwd", "fwd_eval",
-    "bwd", "wgrad"."""
+    """Layer 0 of the two-layer model at embedding 80 (E = H = 80, 5 weight
+    groups, two dy streams a direction from the stacked layer above, 400
+    rows, T = 1500), the main path of these kernels, in f32 and bf16: in
+    f32 the forward (both variants) ``bilstm_fwd.cu``, the sweep
+    ``bilstm_bwd_f32_onestage.cu`` (three tf32 passes) and wgrad
+    ``bilstm_wgrad.cu``; in bf16 ``bilstm_fwd.cu``, ``bilstm_bwd.cu`` and
+    ``bilstm_wgrad.cu`` (the other tensor-core kernels take H <= 64, and
+    H % 32 == 0 for wgrad). Each is held against its plain twin with the
+    main path's lengths (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by
+    name too), then timed at full lengths beside the twin (timed once, in
+    the check), its bound (the one-stage sweep at 495/3 TFLOP/s, the others
+    at their dtype's rate), cuDNN's one-layer training forward, inference
+    forward and backward for the input in the same dtype, and cuBLAS's
+    products for wgrad, TF32 off; the one-stage sweep in turns with
+    ``bilstm_bwd.cu`` by name (new, old, old, new). One dict per dtype and
+    kernel: "fwd", "fwd_eval", "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
-    E_parts, H, G, cd = [80], 80, G_TRAIN, torch.float32
-    kernels = (L.fwd_kernel(E_parts, H, cd), L.sweep_kernel(E_parts, H, cd),
-               L.wgrad_kernel(E_parts, H, cd))
-    if kernels != ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad"):
-        raise AssertionError(f"embedding 80's forward, sweep and wgrad are {kernels}")
-    shape = {"B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G, "E_parts": E_parts, "ny": 1,
-             "dtype": "float32", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
-    out = {k: {"kernel": name, **shape} for k, name in (
-        ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"), ("bwd", "bilstm_bwd"),
-        ("wgrad", "bilstm_wgrad"))}
+    E_parts, H, G, ny = [80], 80, G_TRAIN, 2
+    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
+              torch.bfloat16: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad")}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
-    work = train_layer_work(sum(E_parts), H, 4, 1)
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
-    for full in (False, True):
-        parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
-            E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=1)
-        fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
-        calls = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
-                 "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args)}
-        hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
-        args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
-                cd)
-        calls["bwd"] = lambda: L.bilstm_bwd(*args)
-        dgc = calls["bwd"]()[2]
-        calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
-        if full:
-            for k, call in calls.items():
-                out[k]["ms"] = time_ms(call, 3)
-                add_bounds(out[k], {k: work[k]}, cd)
-            out["wgrad"]["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
-        else:
-            want, out["fwd"]["plain_ms"] = timed_once(
-                lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
-            _, out["fwd_eval"]["plain_ms"] = timed_once(
-                lambda: L.bilstm_layer_fwd_plain(*fwd_args))
-            ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
-            ref_w, out["wgrad"]["plain_ms"] = timed_once(
-                lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
-            res = {"fwd": {n: rel_err(a, b, TOL[cd])
-                           for n, a, b in zip(names, calls["fwd"](), want)},
-                   "fwd_eval": {n: rel_err(a, b, TOL[cd])
-                                for n, a, b in zip(names, calls["fwd_eval"](), want)},
-                   "bwd": {n: rel_err(a, b, TOL[cd])
-                           for n, a, b in zip(sweep_names(*ref[:2]), flat(calls["bwd"]()),
-                                              flat(ref))},
-                   "wgrad": {n: rel_err(a, b, TOL[cd])
-                             for n, a, b in zip(("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
-            torch.cuda.synchronize()
-            for k, r in res.items():
-                out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
-                if not all(ok for _, ok in r.values()):
-                    emit({"phase": "train_kernel", "failed": out[k]})
-                    raise AssertionError(f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
-            del want, ref, ref_w, res
-        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, dgc
-    lib = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)
-    for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
-                   ("bwd", "cudnn_bwd_data_ms")):
-        out[k]["library_ms"] = lib[key]
-    return out
+    result = {}
+    for cd in (torch.float32, torch.bfloat16):
+        f32 = cd == torch.float32
+        kernels = (L.fwd_kernel(E_parts, H, cd), L.sweep_kernel(E_parts, H, cd),
+                   L.wgrad_kernel(E_parts, H, cd))
+        if kernels != picked[cd]:
+            raise AssertionError(f"embedding 80's forward, sweep and wgrad in {cd} are {kernels}")
+        shape = {"B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G, "E_parts": E_parts, "ny": ny,
+                 "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out = {k: {"kernel": name, **shape} for k, name in (
+            ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"),
+            ("bwd", picked[cd][1]), ("wgrad", "bilstm_wgrad"))}
+        size = torch.empty((), dtype=cd).element_size()
+        work = train_layer_work(sum(E_parts), H, size, ny)
+        peaks = {"bwd": kernel_peak(cd, picked[cd][1])}
+        for full in (False, True):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=ny)
+            fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
+            calls = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
+                     "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args)}
+            hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
+            args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
+                    dcn, cd)
+            calls["bwd"] = lambda: L.bilstm_bwd(*args)
+            dgc = calls["bwd"]()[2]
+            calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+            if full:
+                for k, call in calls.items():
+                    if k == "bwd" and f32:
+                        # new, old, old, new: both sweeps in one run, on one card
+                        out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
+                            call, lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"), 3)
+                        out[k]["cuda_core_bound_ms"], _ = bound(
+                            [(*work[k], kernel_peak(cd, "bilstm_bwd"))])
+                    else:
+                        out[k]["ms"] = time_ms(call, 3)
+                    add_bounds(out[k], {k: work[k]}, cd, peaks)
+                out["wgrad"]["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
+            else:
+                want, out["fwd"]["plain_ms"] = timed_once(
+                    lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
+                _, out["fwd_eval"]["plain_ms"] = timed_once(
+                    lambda: L.bilstm_layer_fwd_plain(*fwd_args))
+                ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+                ref_w, out["wgrad"]["plain_ms"] = timed_once(
+                    lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
+                gnames = sweep_names(*ref[:2])
+                res = {"fwd": {n: rel_err(a, b, TOL[cd])
+                               for n, a, b in zip(names, calls["fwd"](), want)},
+                       "fwd_eval": {n: rel_err(a, b, TOL[cd])
+                                    for n, a, b in zip(names, calls["fwd_eval"](), want)},
+                       "bwd": {n: rel_err(a, b, TOL[cd])
+                               for n, a, b in zip(gnames, flat(calls["bwd"]()), flat(ref))},
+                       "wgrad": {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                           ("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
+                if f32:
+                    res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                        gnames, flat(L.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(ref))})
+                    out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
+                        flat(calls["bwd"]()), flat(ref)))
+                torch.cuda.synchronize()
+                for k, r in res.items():
+                    out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
+                    if not all(ok for _, ok in r.values()):
+                        emit({"phase": "train_kernel", "failed": out[k]})
+                        raise AssertionError(
+                            f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
+                del want, ref, ref_w, res
+            del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, dgc
+        lib = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)
+        for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
+                       ("bwd", "cudnn_bwd_data_ms")):
+            out[k]["library_ms"] = lib[key]
+        result[shape["dtype"]] = out
+    return result
 
 
 def in_turns(new, old, reps: int) -> tuple:
@@ -1101,6 +1153,7 @@ def train_counters():
             "bilstm_layer_fwd_train_mma": L.bilstm_layer_fwd_train_mma,
             "bilstm_bwd": L.bilstm_bwd, "bilstm_bwd_mma": L.bilstm_bwd_mma,
             "bilstm_bwd_f32": L.bilstm_bwd_f32,
+            "bilstm_bwd_f32_onestage": L.bilstm_bwd_f32_onestage,
             "bilstm_wgrad": L.bilstm_wgrad, "bilstm_wgrad_mma": L.bilstm_wgrad_mma,
             "bilstm_layer_fwd": L.bilstm_layer_fwd,
             "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma,
@@ -1151,7 +1204,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_f32": "bilstm_fwd_f32_kernel",
                 "fwd_cuda_core": "bilstm_layer_fwd_kernel",
-                "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_kernel",
+                "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_",
                 "sweep_cuda_core": "bilstm_bwd_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_f32": "bilstm_wgrad_f32_kernel",
                 "wgrad_cuda_core": "bilstm_wgrad_kernel"})
@@ -1160,7 +1213,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
            "bilstm_wgrad_mma")
     old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
-           "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
+           "bilstm_bwd_f32_onestage", "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
            "bilstm_layer_fwd_train_f32")
     missing = [n for n in new if launches[n] <= 0]
     ran_old = [n for n in old if launches[n] != 0]
@@ -1172,18 +1225,34 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     f32 = f32_steps(dev, batches,
                     ("bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_wgrad_f32"),
                     ("bilstm_layer_fwd_train_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma",
-                     "bilstm_wgrad", "bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd"))
-    # bilstm_fwd.cu, bilstm_bwd.cu and bilstm_wgrad.cu keep the resident
-    # shapes the tensor-core kernels do not take: a one-layer f32 model at
-    # embedding 80 (H > 64, H % 32 != 0) runs its forward (both variants: an
-    # eval step follows the train steps), its sweep and its wgrad
-    f32_cuda_core = f32_steps(dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
-                                             "bilstm_bwd", "bilstm_wgrad"),
-                              ("bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_layer_fwd_f32",
-                               "bilstm_layer_fwd_train_f32", "bilstm_wgrad_f32"), eval_step=True,
-                              embedding_size=80, rnn_num_layers=1)
+                     "bilstm_wgrad", "bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd",
+                     "bilstm_bwd_f32_onestage"))
+    # the default two-layer model at embedding 80, an eval step after its
+    # train steps: layer 0 (E = H = 80) is resident, its forward (both
+    # variants) bilstm_fwd.cu and wgrad bilstm_wgrad.cu, its sweep the
+    # one-stage 3xTF32 kernel in f32 and bilstm_bwd.cu in bf16; the stacked
+    # layer (E = 2 x 80) runs padded to H = 96 on the wide route
+    e80 = {}
+    for dtype, expect, never in (
+        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates", "bilstm_wgrad_f32"),
+         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_gates_mma", "bilstm_wgrad_mma")),
+        (torch.bfloat16, ("bilstm_bwd", "bilstm_gates_mma", "bilstm_wgrad_mma"),
+         ("bilstm_bwd_f32_onestage", "bilstm_bwd_mma", "bilstm_gates", "bilstm_wgrad_f32")),
+    ):
+        e80[str(dtype).replace("torch.", "")] = f32_steps(
+            dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad",
+                           "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite")
+            + expect, ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
+                       "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma") + never,
+            eval_step=True, dtype=dtype, embedding_size=80)
     grad_check = train_grad_check(dev)
-    grad_check_80 = train_grad_check(dev, embedding_size=80, rnn_num_layers=1)
+    grad_check_80 = {str(dtype).replace("torch.", ""): train_grad_check(
+        dev, dtype=dtype, eval_step=True, expect=expect, embedding_size=80)
+        for dtype, expect in (
+            (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_layer_fwd", "bilstm_bwd_lite",
+                             "bilstm_fwd_wide", "bilstm_wgrad_f32", "bilstm_wgrad")),
+            (torch.bfloat16, ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_bwd_lite",
+                              "bilstm_fwd_wide", "bilstm_wgrad_mma", "bilstm_wgrad")))}
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
@@ -1192,24 +1261,25 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
            "losses": losses, "eval_loss": eval_loss, "eval_step_ms": eval_ms,
            "launches": launches, "peak_memory_gib": peak_gib,
            "step_profile": breakdown, "float32_steps": f32,
-           "float32_steps_embedding_80": f32_cuda_core, "grad_check": grad_check,
+           "steps_embedding_80": e80, "grad_check": grad_check,
            "grad_check_embedding_80": grad_check_80, "grad_check_bf16": grad_check_bf16}
     emit(out)
     return out
 
 
-def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, **widths) -> dict:
-    """The same train step with the model in f32 (the factory's default
-    compute dtype), a main path of its own: the counts are set to 0 just
-    before and read just after (with ``eval_step``, after an eval step that
-    follows the train steps). The dispatch is by dtype and shape: the
-    kernels in ``expect`` must launch and those in ``never`` must not.
-    ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
-    Then one more step, profiled, after the counts are read."""
+def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch.float32,
+              **widths) -> dict:
+    """The same train step with the model in ``dtype`` (by default f32, the
+    factory's default compute dtype), a main path of its own: the counts
+    are set to 0 just before and read just after (with ``eval_step``, after
+    an eval step that follows the train steps). The dispatch is by dtype
+    and shape: the kernels in ``expect`` must launch and those in ``never``
+    must not. ``widths`` (embedding_size, rnn_num_layers) as the factory
+    takes them. Then one more step, profiled, after the counts are read."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
     from intrepppid_tpu_torch.train import Trainer
 
-    net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.float32,
+    net = intrepppid_network(steps_per_epoch=100, compute_dtype=dtype,
                              optimizer_type="ranger21_xx", device=dev, seed=SEED, **widths)
     trainer = Trainer(net, seed=SEED)
     counters = train_counters()
@@ -1228,21 +1298,24 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, **widths) -
     missing = [n for n in expect if launches[n] <= 0]
     wrong = [n for n in never if launches[n] != 0]
     if missing or wrong:
-        raise AssertionError(f"the f32 train steps never launched {missing} or ran {wrong}")
+        raise AssertionError(f"the {dtype} train steps never launched {missing} or ran {wrong}")
     profile = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
-                        "lstm_recurrence_fwd_kernel"),
+                        "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
-                          "lstm_recurrence_bwd_f32_kernel", "lstm_recurrence_bwd_kernel"),
+                          "lstm_recurrence_bwd_f32_kernel",
+                          "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
-                          "lstm_recurrence_wgrad_kernel"),
+                          "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel"),
+                "gates": "bilstm_gates",
                 "gemm": ("gemm", "nvjet", "xmma")})
-    return {"dtype": "float32", "steps": steps, "eval_step": eval_step, **widths,
+    return {"dtype": str(dtype).replace("torch.", ""), "steps": steps, "eval_step": eval_step,
+            **widths,
             "step_ms": step_ms, "losses": losses, "launches": launches, "step_profile": profile}
 
 
-def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False,
+def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, expect=(),
                      **widths) -> dict:
     """One step's gradients on the card (the kernels) against the port's CPU
     plain path: same seeded weights and batch, every dropout rate 0;
@@ -1257,7 +1330,7 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False,
     the backward (no grad: the eval-variant forwards), and its loss is held
     to the same tolerance. The card's steps are a main path of their own:
     the launch counts are set to 0 just before them and read just after
-    (``launches``)."""
+    (``launches``); each kernel named in ``expect`` must have launched."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
 
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
@@ -1293,6 +1366,9 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False,
     if set(grads["cpu"]) != set(grads["cuda"]) or not any(
             n.startswith("encoder.lstm.") for n in grads["cuda"]):
         raise AssertionError("the card's step did not reach the same parameters")
+    missing = [n for n in expect if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"the card's step ({dtype}, {widths}) never launched {missing}")
     extra = {}
     if eval_step:
         extra["eval_loss_err"] = abs(eval_losses["cuda"] - eval_losses["cpu"])
@@ -1302,6 +1378,130 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False,
             "params": len(errs), **widths, **extra, "max_abs_err": max(errs.values()),
             "tol": f"{tol} x max(1, max|grad|)",
             "launches": {n: v for n, v in launches.items() if v}}
+
+
+# ------------------------------------------------------------------ widths
+# the layers the width repair opens (E parts, H, weight groups), each run at
+# its padded width: the stacked layer at embedding 80 (96, wide), layer 0
+# and the stacked layer at embedding 112 (128, wide)
+PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 112, G_TRAIN),
+                 (("stacked", 112), [112, 112], 112, 1))
+# two-layer models at these embeddings, and the recurrence backend at 80:
+# the kernels each one's gradient step and eval step must launch
+WIDTH_STEPS = (
+    ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
+                                  "bilstm_bwd_f32", "bilstm_wgrad")),
+    ("layer", 48, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
+                                   "bilstm_layer_fwd_train", "bilstm_layer_fwd",
+                                   "bilstm_bwd_mma", "bilstm_wgrad", "bilstm_wgrad_mma")),
+    ("layer", 112, torch.float32, ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                                   "bilstm_bwd_lite", "bilstm_wgrad_f32")),
+    ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
+                                    "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
+                                    "bilstm_wgrad_mma")),
+    ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                                       "lstm_recurrence_wgrad")),
+    ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                                        "lstm_recurrence_wgrad_mma")),
+)
+
+
+def padded_layer_timings(dev) -> list:
+    """Each layer of ``PADDED_LAYERS`` on its route at its padded width
+    (``lstm_cuda.layer_fwd`` train variant, and ``layer_bwd``: the sweep and
+    the weight gradients), 400 rows, f32 and bf16: held against the plain
+    layer at its true H (``bidir_layer``, ``bidir_layer_bwd``) at T = 300
+    with the main path's lengths, the kernels it launched, then timed at
+    T = 1500, full lengths, beside its bound at the true H and at the padded width
+    (the dtype's rate; what the padding costs) and cuDNN's one-layer
+    training forward and backward (input and weights) at the true H in the
+    same dtype, TF32 off."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_bwd
+
+    counters = train_counters()
+    out = []
+    for (what, width), E_parts, H, G in PADDED_LAYERS:
+        ny = 2 if len(E_parts) == 1 else 1
+        for cd in (torch.float32, torch.bfloat16):
+            Hp = L.padded_width(E_parts, H, cd)
+            row = {"layer": f"{what}, embedding {width}", "E_parts": E_parts, "H": H,
+                   "padded_H": Hp, "route": L.layer_route(E_parts, H, cd), "G": G, "ny": ny,
+                   "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
+                   "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+            size = torch.empty((), dtype=cd).element_size()
+            for full in (False, True):
+                parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                    E_parts, H, G, cd, dev, SEED + 40 + H, full_lengths=full, ny=ny,
+                    T=T_TRAIN if full else 300)
+                fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
+                fwd = lambda: L.layer_fwd(*fwd_args, with_states=True)  # noqa: E731
+                hs_f, hs_b, _, _, cs_f, cs_b = fwd()
+                args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                        dhn, dcn, cd)
+                bwd = lambda: L.layer_bwd(*args)  # noqa: E731
+                if full:
+                    row["fwd_ms"], row["bwd_ms"] = time_ms(fwd, 3), time_ms(bwd, 3)
+                    continue
+                for fn in counters.values():
+                    fn.launches = 0
+                got_f, got_b = fwd(), bwd()
+                torch.cuda.synchronize()
+                row["kernels"] = sorted(n for n, fn in counters.items() if fn.launches)
+                fwd_name = L.wide_fwd_kernel(Hp, cd).replace("wide", "wide_train")
+                want = {L.gates_kernel(E_parts, Hp, cd), fwd_name, L.lite_kernel(Hp, cd),
+                        L.wgrad_kernel(E_parts, Hp, cd)}
+                if row["route"] != "wide" or not want <= set(row["kernels"]):
+                    raise AssertionError(f"a padded layer ran {row['kernels']}, not {want}")
+                want_f = bidir_layer(*fwd_args, with_states=True)
+                want_b = bidir_layer_bwd(*args)
+                flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+                res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b"), got_f, want_f)}
+                res.update({n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    sweep_names(*want_b[:2])[:-2] + ["dW_ih", "dW_hh", "dbias"], flat(got_b),
+                    flat(want_b))})
+                row["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+                if not all(ok for _, ok in res.values()):
+                    emit({"phase": "widths", "failed": row})
+                    raise AssertionError(f"a padded layer disagrees with its plain layer: {row}")
+                del got_f, got_b, want_f, want_b
+            for key, Hw in (("", H), ("padded_", Hp)):
+                work = train_layer_work(sum(E_parts), Hw, size, ny, G=G)
+                peak = kernel_peak(cd)
+                row[f"fwd_{key}bound_ms"], row[f"fwd_{key}bound_by"] = bound(
+                    [(*work["fwd"], peak)])
+                row[f"bwd_{key}bound_ms"], row[f"bwd_{key}bound_by"] = bound(
+                    [(*work["bwd"], peak), (*work["wgrad"], peak)])
+            lib = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H, layers=1)
+            row["fwd_library_ms"], row["bwd_library_ms"] = lib["cudnn_fwd_ms"], lib["cudnn_bwd_ms"]
+            out.append(row)
+            del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args
+    return out
+
+
+def phase_widths(dev) -> dict:
+    """The widths the JAX package's kernels take and the port's kernels did
+    not, on the card: ``padded_layer_timings``; then for each of
+    ``WIDTH_STEPS`` one gradient step and an eval step of the two-layer
+    model (8 pairs, T = 64, dropout 0) on the card against the CPU plain
+    path, in f32 and bf16, the listed kernels launched (on the recurrence
+    backend with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``)."""
+    from intrepppid_tpu_torch.ops import lstm
+
+    layers = padded_layer_timings(dev)
+    steps = []
+    for backend, width, dtype, expect in WIDTH_STEPS:
+        lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
+        try:
+            check = train_grad_check(dev, dtype=dtype, eval_step=True, expect=expect,
+                                     embedding_size=width)
+        finally:
+            lstm.DEFAULT_BACKEND = "auto"
+        steps.append({"backend": backend, **check})
+    out = {"phase": "widths", "padded_layers": layers, "grad_checks": steps}
+    emit(out)
+    return out
 
 
 # ------------------------------------------------------------ wide kernels
@@ -1444,8 +1644,8 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
 def row4_timings(dev, T=300) -> dict:
     """Kernel row 4's function (a layer's backward with dx, dW_ih, dW_hh
     and dbias) at its TPU shapes, full lengths, 400 rows, f32 and bf16 at
-    H = 128 and 32: the port's layer backward on its route
-    (``layer_bwd`` then ``bilstm_wgrad``), the plain layer backward, and
+    H = 128 and 32: the port's layer backward on its route (``layer_bwd``:
+    its sweep, then ``bilstm_wgrad``), the plain layer backward, and
     cuDNN's backward for input and weights (training forward and backward,
     less the forward) in the same dtype."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -1466,7 +1666,9 @@ def row4_timings(dev, T=300) -> dict:
                     dtype)
 
             def kernels(**kernel):
-                dgc = (L.bilstm_bwd(*args, **kernel) if kernel else L.layer_bwd(*args))[2]
+                if not kernel:
+                    return L.layer_bwd(*args)
+                dgc = L.bilstm_bwd(*args, **kernel)[2]
                 return L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
 
             if dtype == torch.float32 and L.layer_route(E_parts, H, dtype) == "resident":
@@ -1477,7 +1679,7 @@ def row4_timings(dev, T=300) -> dict:
                 t["kernel_cuda_core_ms"] = t.get("kernel_cuda_core_ms", 0.0) + c
             else:
                 t["kernel_ms"] += time_ms(kernels, 3)
-            t["plain_ms"] += time_ms(lambda: bidir_layer_bwd(*args), 1)
+            t["plain_ms"] += timed_once(lambda: bidir_layer_bwd(*args))[1]
             lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev).to(dtype)
             x = (torch.rand(T, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).to(dtype)
             x.requires_grad_()
@@ -1710,12 +1912,15 @@ def phase_wide_kernel(dev) -> dict:
                         add(f"lite_rows{rows}_ms",
                             time_ms(lambda: at_rows("LITE_MMA_ROWS", rows, L.bilstm_bwd_lite_mma,
                                                     *lite_args), 3))
-            add("gates_plain_ms", time_ms(lambda: input_gates(parts, w_ih, bias, dtype), 1))
-            add("fwd_plain_ms", time_ms(
-                lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True), 1))
-            add("fwd_eval_plain_ms", time_ms(lambda: bidir_recurrence(xg, lengths, w_hh, dtype), 1))
-            add("lite_plain_ms", time_ms(lambda: bidir_layer_sweep_lite(*lite_args), 1))
-            add("wgrad_plain_ms", time_ms(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G), 1))
+            # the plain versions, timed once each (Python loops over T)
+            add("gates_plain_ms", timed_once(lambda: input_gates(parts, w_ih, bias, dtype))[1])
+            add("fwd_plain_ms", timed_once(
+                lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True))[1])
+            add("fwd_eval_plain_ms", timed_once(
+                lambda: bidir_recurrence(xg, lengths, w_hh, dtype))[1])
+            add("lite_plain_ms", timed_once(lambda: bidir_layer_sweep_lite(*lite_args))[1])
+            add("wgrad_plain_ms", timed_once(
+                lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))[1])
             # yardsticks the port never calls, in the same dtype: one cuBLAS
             # call for the input gates of both directions (f32 out), cuBLAS for
             # the weight gradients, cuDNN for the recurrence and the sweep
@@ -2297,16 +2502,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
-    phase_build()
-    kern = phase_kernel(dev)
-    serve = phase_serve(dev)
-    tk = phase_train_kernel(dev)
-    train = phase_train(dev)
-    wk = phase_wide_kernel(dev)
-    scaled = phase_train_scaled(dev)
-    rk = phase_recurrence_kernel(dev)
-    rpath = phase_recurrence_path(dev)
-    infer = phase_infer(dev)
+    seconds = {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    run(phase_build)
+    kern = run(phase_kernel, dev)
+    serve = run(phase_serve, dev)
+    tk = run(phase_train_kernel, dev)
+    train = run(phase_train, dev)
+    run(phase_widths, dev)
+    wk = run(phase_wide_kernel, dev)
+    scaled = run(phase_train_scaled, dev)
+    rk = run(phase_recurrence_kernel, dev)
+    rpath = run(phase_recurrence_path, dev)
+    infer = run(phase_infer, dev)
 
     # the f32 eval forward on the tensor cores (3xTF32): the serve path;
     # bilstm_fwd.cu by name on the same operands, in turns, is a yardstick
@@ -2408,7 +2622,8 @@ def main() -> int:
         kernels.append(entry)
     # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
     # same operands, in turns (new, old, old, new), is a yardstick there
-    f32_sweep = [c for c in tk["checks"] + tk["ragged_checks"] if c["dtype"] == "float32"]
+    f32_sweep = [c for c in tk["checks"] + tk["ragged_checks"] if c["dtype"] == "float32"
+                 and c.get("kernel") != "bilstm_bwd_f32_onestage"]
     kernels.append({
         "name": "bilstm_bwd_f32",
         "route": "cuda",
@@ -2436,33 +2651,65 @@ def main() -> int:
     # the CUDA-core forward (both variants), sweep and wgrad at their main
     # path's shapes: the f32 model at embedding 80 (its train steps and an
     # eval step)
+    # the CUDA-core forward (both variants), sweep and wgrad and the
+    # one-stage sweep at their main path's shapes: layer 0 of the two-layer
+    # model at embedding 80 (its train steps and an eval step); f32 is the
+    # main path of the forward, wgrad and the one-stage sweep, bf16 of
+    # bilstm_bwd.cu
     e80 = tk["embedding_80"]
-    e80_launches = train["float32_steps_embedding_80"]["launches"]
-    for key, name, source in (("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu"),
-                              ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu"),
-                              ("bwd", "bilstm_bwd", "bilstm_bwd.cu"),
-                              ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu")):
-        e = e80[key]
-        kernels.append({
+    e80_launches = {d: train["steps_embedding_80"][d]["launches"] for d in e80}
+    library = {"fwd_eval": "cuDNN one-layer nn.LSTM inference",
+               "fwd": "cuDNN one-layer nn.LSTM training forward",
+               "bwd": "cuDNN one-layer nn.LSTM backward (input)", "wgrad": "cuBLAS products"}
+    for key, name, source, dtype in (
+        ("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu", "float32"),
+        ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "float32"),
+        ("bwd", "bilstm_bwd_f32_onestage", "bilstm_bwd_f32_onestage.cu", "float32"),
+        ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "bfloat16"),
+        ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "float32"),
+    ):
+        e = e80[dtype][key]
+        other = "bfloat16" if dtype == "float32" else "float32"
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
-            "replaces": "intrepppid_tpu/ops/lstm_pallas_packed.py:"
-                        + ("256" if key.startswith("fwd") else "494"),
-            "launches": e80_launches[name],
-            "max_abs_err": max(e["max_abs_err"].values()),
+            "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:"
+                        + ("285" if key.startswith("fwd") else "436"),
+            "launches": e80_launches[dtype][name],
+            "max_abs_err": max(v for n, v in e["max_abs_err"].items()
+                               if not n.startswith("cuda_core_")),
             "ms": e["ms"],
             "plain_ms": e["plain_ms"],
             "bound_ms": e[f"{key}_bound_ms"],
             "bound_by": e[f"{key}_bound_by"],
             "library_ms": e["library_ms"],
-            "work": "the one layer of the f32 model at embedding 80 (E=H=80, 5 groups, one dy "
-                    "stream a direction), 400 rows, T=1500; library: "
-                    + {"fwd_eval": "cuDNN one-layer nn.LSTM inference",
-                       "fwd": "cuDNN one-layer nn.LSTM training forward",
-                       "bwd": "cuDNN one-layer nn.LSTM backward (input)",
-                       "wgrad": "cuBLAS products"}[key] + " in f32, TF32 off",
-        })
+            "work": f"layer 0 of the {dtype} two-layer model at embedding 80 (E=H=80, 5 groups, "
+                    f"two dy streams a direction), 400 rows, T=1500; library: {library[key]} in "
+                    f"{dtype}, TF32 off",
+        }
+        if name == "bilstm_bwd_f32_onestage":
+            ragged = [c for c in tk["ragged_checks"] if c["kernel"] == name]
+            entry.update({
+                "max_abs_err": max([entry["max_abs_err"]] + [max(c["max_abs_err"].values())
+                                                             for c in ragged]),
+                "ms_again": e["ms_again"], "cuda_core_ms": e["cuda_core_ms"],
+                "cuda_core_bound_ms": e["cuda_core_bound_ms"], "scaled_err": e["scaled_err"],
+                "cuda_core_max_abs_err": max(v for n, v in e["max_abs_err"].items()
+                                             if n.startswith("cuda_core_"))})
+            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
+                              "bilstm_bwd.cu by name on the same operands (new, old, old, new), "
+                              "its bound cuda_core_bound_ms at 67 TFLOP/s; max_abs_err also over "
+                              "the ragged cases (27 rows, 3 groups, T = 1 and 5)")
+        else:
+            # the same kernel in the other dtype, at the same shapes
+            o = e80[other][key] if key != "bwd" else None
+            if o is not None:
+                entry.update({f"{other}_{k}": o[k] for k in ("ms", "plain_ms", "library_ms")})
+                entry[f"{other}_bound_ms"] = o[f"{key}_bound_ms"]
+                entry[f"{other}_launches"] = e80_launches[other][name]
+                entry["work"] += f"; {other}_*: the same layer in {other}"
+        kernels.append(entry)
     kernels.append({
         "name": "bilstm_bwd_mma",
         "route": "cuda",
@@ -2717,7 +2964,7 @@ def main() -> int:
                 "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
                 "one batched cuBLAS product; bmm_ms: that product alone",
     })
-    if len(kernels) != 26 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 27 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})
@@ -2726,7 +2973,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     )
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s ({seconds})", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

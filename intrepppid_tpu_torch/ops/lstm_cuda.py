@@ -2,7 +2,10 @@
 
 Each layer takes one of two routes, fixed by its shapes and dtype before
 any launch (``layer_route``), as the JAX package's ``pick_plan`` picks its
-packed, fused or lite kernels:
+packed, fused or lite kernels. A layer no route takes at its own width
+runs at ``padded_width``, each gate block grown by zero units
+(``pad_layer``; ``layer_fwd`` and ``layer_bwd`` pad and cut back), so every
+width the JAX kernels take (H <= 256, H % 16 == 0) has a route:
 
 * **resident** -- where one block's shared memory holds the layer's
   weights (a forward kernel and a sweep kernel take the shape):
@@ -23,13 +26,15 @@ packed, fused or lite kernels:
     not take). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
-    Three kernels do it, picked by shape and dtype (``sweep_kernel``):
+    Four kernels do it, picked by shape and dtype (``sweep_kernel``):
     ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64:
     the products on the tensor cores), ``bilstm_bwd_f32`` launches
     ``csrc/bilstm_bwd_f32.cu`` (f32, H <= 64: three tf32 passes a product on
-    the tensor cores), and ``bilstm_bwd`` itself launches
-    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores). Plain twin of all
-    three: ``ops/lstm.py:bidir_layer_sweep``.
+    the tensor cores), ``bilstm_bwd_f32_onestage`` launches
+    ``csrc/bilstm_bwd_f32_onestage.cu`` (the same kernel with one [x ; h]
+    stage, f32 at E = H = 80), and ``bilstm_bwd`` itself launches
+    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores: bf16 at H = 80). Plain
+    twin of all four: ``ops/lstm.py:bidir_layer_sweep``.
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
 
@@ -69,8 +74,9 @@ packed, fused or lite kernels:
 
 Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
-``intrepppid_tpu/ops/lstm_pallas.py``) has kernels of its own: three on the
-wide route's cluster design at every width they take, and two tensor-core
+``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
+``recurrence_width``, padded) has kernels of its own: three on the wide
+route's cluster design at every width they take, and two tensor-core
 ones:
 
 * ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
@@ -111,6 +117,7 @@ the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_gates``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from fractions import Fraction
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -146,8 +153,9 @@ SMEM_LIMIT = 232448
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
-# kMaxThreads, kMaxH, kPad), bilstm_bwd_f32.cu (kMmaTile, kMaxChunks,
-# kMaxThreads, kMaxH, kStrideAlign, kStridePad), lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
+# kMaxThreads, kMaxH, kPad), bilstm_bwd_f32.cu and bilstm_bwd_f32_onestage.cu
+# (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign, kStridePad),
+# lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
@@ -169,6 +177,10 @@ REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
 # the f32 tensor-core sweep: [x ; h] chunks a thread copies per step, and
 # its weight / tile row stride K rounded up to 32 floats plus 8
 BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
+# the one-stage f32 tensor-core sweep (past bilstm_bwd_f32.cu's shared
+# memory): threads a block and its widest H (its chunks and strides are the
+# f32 sweep's)
+BWD_F32_ONESTAGE_MAX_THREADS, BWD_F32_ONESTAGE_MAX_H = 320, 80
 # the tensor-core forward: its (H, E) instances (the model's layers at the
 # resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96), x
 # chunks a thread copies per step
@@ -213,6 +225,9 @@ WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
+# a layer no route takes at its own H runs at a multiple of this
+# (``padded_width``): the tensor-core kernels' 16-unit groups
+PAD_STEP = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -223,6 +238,8 @@ _SIGNATURES = {
                        + [_I] * 7 + [_P]),
     "bilstm_bwd_f32": ("bilstm_bwd_f32", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                        + [_I] * 7 + [_P]),
+    "bilstm_bwd_f32_onestage": ("bilstm_bwd_f32_onestage", [_P, _P, _I, _I] + [_P] * 12 + [_I]
+                                + [_P] * 8 + [_I] * 7 + [_P]),
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
@@ -259,6 +276,15 @@ _CONSTANTS = {
                         "bilstm_bwd_f32_stride_align", "bilstm_bwd_f32_stride_pad"),
                        (MMA_TILE, BWD_F32_MAX_CHUNKS, BWD_MMA_MAX_THREADS, MMA_MAX_H,
                         BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
+    "bilstm_bwd_f32_onestage": (("bilstm_bwd_f32_onestage_tile",
+                                 "bilstm_bwd_f32_onestage_max_chunks",
+                                 "bilstm_bwd_f32_onestage_max_threads",
+                                 "bilstm_bwd_f32_onestage_max_h",
+                                 "bilstm_bwd_f32_onestage_stride_align",
+                                 "bilstm_bwd_f32_onestage_stride_pad"),
+                                (MMA_TILE, BWD_F32_MAX_CHUNKS, BWD_F32_ONESTAGE_MAX_THREADS,
+                                 BWD_F32_ONESTAGE_MAX_H, BWD_F32_STRIDE_ALIGN,
+                                 BWD_F32_STRIDE_PAD)),
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
     "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
                         "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
@@ -498,28 +524,62 @@ def bwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
     return threads, smem
 
 
+def _first_fitting(plans, E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The name of the first ``(name, plan)`` whose plan takes the shape;
+    ValueError naming every refusal otherwise, the last plan's (the CUDA-core
+    kernel's) first."""
+    refusals = []
+    for name, plan in plans:
+        try:
+            plan(E_parts, H, dtype)
+            return name
+        except ValueError as e:
+            refusals.append(str(e))
+    raise ValueError("; ".join(refusals[-1:] + refusals[:-1]))
+
+
+def bwd_f32_onestage_plan(E_parts: Sequence[int], H: int,
+                          dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the one-stage f32 tensor-core sweep
+    (``csrc/bilstm_bwd_f32_onestage.cu``), or ValueError for a dtype or
+    shape it does not take. It takes float32 with H % 16 == 0 up to
+    ``BWD_F32_ONESTAGE_MAX_H`` (80) and 1 or 2 input parts that are
+    multiples of 8 wide: the threads of ``bwd_f32_plan``, and shared memory
+    for the weights, one dgates tile and ONE [x ; h] stage (the next step's
+    tile waits in registers), which is what lets E = H = 80 fit."""
+    E = sum(E_parts)
+    if (dtype != torch.float32 or H % 16 or not 16 <= H <= BWD_F32_ONESTAGE_MAX_H
+            or len(E_parts) not in (1, 2) or any(e <= 0 or e % 8 for e in E_parts)):
+        raise ValueError(
+            f"bilstm_bwd_f32_onestage kernel takes float32 with H % 16 == 0 up to "
+            f"{BWD_F32_ONESTAGE_MAX_H} and 1 or 2 input parts that are positive multiples of 8, "
+            f"got {dtype}, H={H}, E_parts={list(E_parts)}")
+    threads = 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2))
+    ks = -(-(E + H) // BWD_F32_STRIDE_ALIGN) * BWD_F32_STRIDE_ALIGN + BWD_F32_STRIDE_PAD
+    smem = (4 * H * ks + MMA_TILE * (4 * H + 4) + MMA_TILE * ks) * 4
+    if (threads > BWD_F32_ONESTAGE_MAX_THREADS or 2 * (E + H) > BWD_F32_MAX_CHUNKS * threads
+            or smem > SMEM_LIMIT):
+        raise ValueError(
+            f"bilstm_bwd_f32_onestage kernel: E={E}, H={H} needs {threads} threads (at most "
+            f"{BWD_F32_ONESTAGE_MAX_THREADS}) and {smem} bytes of shared memory (at most "
+            f"{SMEM_LIMIT})")
+    return threads, smem
+
+
 def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's sweep takes for a layer, by shape and
-    dtype alone: ``"bilstm_bwd_mma"`` where ``bwd_mma_plan`` fits (bf16,
-    H <= 64); else, where ``bwd_launch_plan`` fits, ``"bilstm_bwd_f32"`` if
-    ``bwd_f32_plan`` fits too (f32, H <= 64) and ``"bilstm_bwd"`` for the
-    rest (the bf16 shapes the tensor-core sweep does not take, f32 past
-    H = 64); ValueError naming both refusals otherwise. ``bwd_launch_plan``
-    alone decides which shapes the resident route takes, as before the f32
-    kernel came, so no layer changes route."""
-    try:
-        bwd_mma_plan(E_parts, H, dtype)
-        return "bilstm_bwd_mma"
-    except ValueError as mma:
-        try:
-            bwd_launch_plan(E_parts, H, dtype)
-        except ValueError as cores:
-            raise ValueError(f"{cores}; {mma}") from None
-    try:
-        bwd_f32_plan(E_parts, H, dtype)
-    except ValueError:
-        return "bilstm_bwd"
-    return "bilstm_bwd_f32"
+    dtype alone, the first whose plan fits: ``"bilstm_bwd_mma"``
+    (``bwd_mma_plan``: bf16, H <= 64), ``"bilstm_bwd_f32"``
+    (``bwd_f32_plan``: f32, H <= 64), ``"bilstm_bwd_f32_onestage"``
+    (``bwd_f32_onestage_plan``: f32 past bilstm_bwd_f32.cu's shared memory,
+    E = H = 80), ``"bilstm_bwd"`` (``bwd_launch_plan``: the CUDA cores, the
+    bf16 shapes the tensor-core sweep does not take); ValueError naming the
+    four refusals otherwise. A tensor-core plan takes a shape whether or not
+    the CUDA-core one does."""
+    return _first_fitting(
+        (("bilstm_bwd_mma", bwd_mma_plan), ("bilstm_bwd_f32", bwd_f32_plan),
+         ("bilstm_bwd_f32_onestage", bwd_f32_onestage_plan), ("bilstm_bwd", bwd_launch_plan)),
+        E_parts, H, dtype)
 
 
 def mma_tiles(B: int, G: int, rows: int = MMA_TILE) -> int:
@@ -593,27 +653,16 @@ def fwd_f32_rows(E_parts: Sequence[int], H: int, B: int, G: int, sms: int) -> in
 
 def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's forward (both variants) takes for a
-    layer, by shape and dtype alone: ``"bilstm_fwd_mma"`` where
-    ``fwd_mma_plan`` fits (bf16, H <= 64); else, where ``launch_plan``
-    fits, ``"bilstm_fwd_f32"`` if ``fwd_f32_plan`` fits too (f32, H <= 64)
-    and ``"bilstm_fwd"`` for the rest (f32 past H = 64, and the bf16 shapes
-    the tensor-core forward does not take); ValueError naming both
-    refusals otherwise. ``launch_plan`` alone decides which shapes the
-    resident route takes, as before the f32 kernel came, so no layer
-    changes route."""
-    try:
-        fwd_mma_plan(E_parts, H, dtype)
-        return "bilstm_fwd_mma"
-    except ValueError as mma:
-        try:
-            launch_plan(E_parts, H, dtype)
-        except ValueError as cores:
-            raise ValueError(f"{cores}; {mma}") from None
-    try:
-        fwd_f32_plan(E_parts, H, dtype)
-    except ValueError:
-        return "bilstm_fwd"
-    return "bilstm_fwd_f32"
+    layer, by shape and dtype alone, the first whose plan fits:
+    ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16, H <= 64),
+    ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H <= 64), ``"bilstm_fwd"``
+    (``launch_plan``: the CUDA cores, f32 past H = 64 and the bf16 shapes
+    the tensor-core forward does not take); ValueError naming the three
+    refusals otherwise. A tensor-core plan takes a shape whether or not the
+    CUDA-core one does."""
+    return _first_fitting(
+        (("bilstm_fwd_mma", fwd_mma_plan), ("bilstm_fwd_f32", fwd_f32_plan),
+         ("bilstm_fwd", launch_plan)), E_parts, H, dtype)
 
 
 def wgrad_check(E_parts: Sequence[int], H: int) -> None:
@@ -734,11 +783,12 @@ def wide_check(H: int, E_parts: Optional[Sequence[int]] = None) -> None:
             f"{GATES_TILE_K} wide, got {list(E_parts)}")
 
 
-def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
-    """``"resident"`` where the resident kernels' plans fit (the layer's
-    weights in one block's shared memory), else ``"wide"``; ValueError for
-    a shape neither route takes. Shapes and dtype alone decide it, for CPU
-    and CUDA tensors alike, before any launch."""
+def _route_at(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The route that takes the layer at exactly H units: ``"resident"``
+    where a resident forward and sweep take it (``fwd_kernel``,
+    ``sweep_kernel``: the layer's weights in one block's shared memory),
+    else ``"wide"`` where ``wide_check`` passes; ValueError naming the
+    refusals otherwise."""
     try:
         fwd_kernel(E_parts, H, dtype)
         sweep_kernel(E_parts, H, dtype)
@@ -747,8 +797,42 @@ def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
         try:
             wide_check(H, E_parts)
         except ValueError as wide:
-            raise ValueError(f"no bilstm route takes this layer: {resident}; {wide}") from None
+            raise ValueError(f"{resident}; {wide}") from None
     return "wide"
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_plan(E_parts: Tuple[int, ...], H: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """``(route, width)`` of a layer (``padded_width``, ``layer_route``),
+    kept per shape: the plans are pure functions of the shapes, and every
+    layer call of a step asks again."""
+    try:
+        return _route_at(E_parts, H, dtype), H
+    except ValueError as native:
+        for Hp in range(H // PAD_STEP * PAD_STEP + PAD_STEP, WIDE_MAX_THREADS + 1, PAD_STEP):
+            try:
+                return _route_at(E_parts, Hp, dtype), Hp
+            except ValueError:
+                pass
+        raise ValueError(f"no bilstm route takes this layer, at H={H} or padded up to "
+                         f"{WIDE_MAX_THREADS}: {native}") from None
+
+
+def padded_width(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> int:
+    """The width a layer of H units runs at: H where a route takes it
+    (``_route_at``), else the least multiple of ``PAD_STEP`` past H, up to
+    ``WIDE_MAX_THREADS``, that one takes (``layer_fwd`` and ``layer_bwd``
+    then grow each gate block with zero units: ``pad_layer``). The input
+    parts keep their widths. ValueError where no width takes the layer."""
+    return _layer_plan(tuple(E_parts), H, dtype)[1]
+
+
+def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
+    """The route of a layer of H units: that of its ``padded_width``,
+    ``"resident"`` or ``"wide"`` (``_route_at``); ValueError for a shape no
+    width takes. Shapes and dtype alone decide it, for CPU and CUDA tensors
+    alike, before any launch."""
+    return _layer_plan(tuple(E_parts), H, dtype)[0]
 
 
 def gates_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
@@ -1302,10 +1386,10 @@ def bilstm_bwd(
 
     On the card the sweep runs the kernel ``sweep_kernel`` names for its
     shapes and dtype: a tensor-core one through :func:`bilstm_bwd_mma`
-    (bf16) or :func:`bilstm_bwd_f32` (f32), whose ``.launches`` then counts
-    it, or ``csrc/bilstm_bwd.cu`` here. ``kernel="bilstm_bwd"`` asks for the
-    latter by name (to time it beside the others); a shape it does not take
-    raises."""
+    (bf16), :func:`bilstm_bwd_f32` or :func:`bilstm_bwd_f32_onestage` (f32),
+    whose ``.launches`` then counts it, or ``csrc/bilstm_bwd.cu`` here.
+    ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
+    the others); a shape it does not take raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1314,13 +1398,12 @@ def bilstm_bwd(
     dev, T, B, H, G, E_parts, w_hh = _sweep_operands(
         "bilstm_bwd", x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
         dyf, dyb, dhn, dcn, cd)
-    if kernel not in (None, "bilstm_bwd", "bilstm_bwd_mma", "bilstm_bwd_f32"):
+    if kernel not in (None, "bilstm_bwd", *_TILE_SWEEPS):
         raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
     kernel = kernel or sweep_kernel(E_parts, H, cd)
     if kernel != "bilstm_bwd":
-        sweep = bilstm_bwd_mma if kernel == "bilstm_bwd_mma" else bilstm_bwd_f32
-        return sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                     dyf, dyb, dhn, dcn, cd)
+        return _TILE_SWEEPS[kernel](x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                    dyf, dyb, dhn, dcn, cd)
 
     threads, rows, smem = bwd_launch_plan(E_parts, H, cd)
     pad = _tile_pad(B, G, rows)
@@ -1467,6 +1550,41 @@ def bilstm_bwd_f32(
 
 
 bilstm_bwd_f32.launches = 0
+
+
+def bilstm_bwd_f32_onestage(
+    x_parts: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    w_ih: torch.Tensor,
+    w_hh: torch.Tensor,
+    bias: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+):
+    """One layer's backward sweep in f32 on the tensor cores, three tf32
+    passes a product, with one [x ; h] stage (``csrc/bilstm_bwd_f32_onestage.cu``:
+    the design of :func:`bilstm_bwd_f32` where its two stages do not fit,
+    E = H = 80); the contract of ``ops/lstm.py:bidir_layer_sweep``: returns
+    ``(dxf, dxb, dgc, dbias)``. Takes the shapes ``bwd_f32_onestage_plan``
+    takes (float32, H <= 80) and raises for the rest, as ``bilstm_bwd_mma``
+    does for its own."""
+    return _tile_sweep(bilstm_bwd_f32_onestage,
+                       lambda E_parts, H, cd, ny: bwd_f32_onestage_plan(E_parts, H, cd),
+                       x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                       dhn, dcn, compute_dtype)
+
+
+bilstm_bwd_f32_onestage.launches = 0
+# the tensor-core sweeps' wrappers, by kernel name
+_TILE_SWEEPS = {"bilstm_bwd_mma": bilstm_bwd_mma, "bilstm_bwd_f32": bilstm_bwd_f32,
+                "bilstm_bwd_f32_onestage": bilstm_bwd_f32_onestage}
 
 
 def bilstm_wgrad(
@@ -2000,38 +2118,131 @@ bilstm_bwd_lite_mma.launches = 0
 
 
 # ------------------------------------------------------------ one layer, routed
+def pad_units(t: torch.Tensor, H: int, Hp: int, dim: int = -1) -> torch.Tensor:
+    """``t`` with its H units along ``dim`` grown to Hp by zeros at the end."""
+    if Hp == H:
+        return t
+    shape = list(t.shape)
+    shape[dim] = Hp
+    out = t.new_zeros(shape)
+    out.narrow(dim, 0, H).copy_(t)
+    return out
+
+
+def pad_gate_rows(t: torch.Tensor, H: int, Hp: int, dim: int) -> torch.Tensor:
+    """``t`` with its 4H gate rows along ``dim`` (gate order i, f, g, o)
+    grown to 4Hp: each gate's block of H grown to Hp by zeros at its end,
+    within the block."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    shape = list(t.shape)
+    blocks = t.reshape(shape[:dim] + [4, H] + shape[dim + 1:])
+    return pad_units(blocks, H, Hp, dim + 1).reshape(shape[:dim] + [4 * Hp] + shape[dim + 1:])
+
+
+def unpad_gate_rows(t: torch.Tensor, H: int, Hp: int, dim: int) -> torch.Tensor:
+    """The inverse of ``pad_gate_rows``: the first H rows of each gate block
+    of Hp, contiguous."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    shape = list(t.shape)
+    blocks = t.reshape(shape[:dim] + [4, Hp] + shape[dim + 1:]).narrow(dim + 1, 0, H)
+    return blocks.reshape(shape[:dim] + [4 * H] + shape[dim + 1:]).contiguous()
+
+
+def pad_layer(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, H: int, Hp: int):
+    """A layer's operands at Hp units: every gate block of ``w_ih (2, 4H,
+    E)``, ``w_hh (2, [G,] 4H, H)`` and ``bias (2, 4H)`` grown to Hp rows
+    and ``w_hh`` to Hp columns, all by zeros. A padded unit's pre-activation
+    is then exactly 0, so its c stays 0 (``sigmoid(0) * 0 + sigmoid(0) *
+    tanh(0)``) and its h is 0; the real units read it through zero
+    columns; in the backward its dh and dc are 0, so its gate cotangents
+    are 0 and add nothing to the real units' dh, dx or weight gradients."""
+    return (pad_gate_rows(w_ih, H, Hp, -2),
+            pad_units(pad_gate_rows(w_hh, H, Hp, -2), H, Hp, -1),
+            pad_gate_rows(bias, H, Hp, -1))
+
+
 def layer_fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states=False):
-    """One layer's forward on its route (``layer_route``): the eval
-    variant's ``(hs_f, hs_b, hn, cn)``, or with ``with_states`` the train
-    variant's, which adds ``(cs_f, cs_b)``."""
+    """One layer's forward on its route (``layer_route``) at its
+    ``padded_width``: the eval variant's ``(hs_f, hs_b, hn, cn)``, or with
+    ``with_states`` the train variant's, which adds ``(cs_f, cs_b)``. A
+    padded layer's outputs are cut back to its H units."""
     x_parts = tuple(x_parts)
-    route = layer_route([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+    E_parts = [p.shape[-1] for p in x_parts]
+    H = w_hh.shape[-1]
+    Hp = padded_width(E_parts, H, compute_dtype)
+    route = layer_route(E_parts, Hp, compute_dtype)
+    w_ih, w_hh, bias = pad_layer(w_ih, w_hh, bias, H, Hp)
     if route == "resident":
         fwd = bilstm_layer_fwd_train if with_states else bilstm_layer_fwd
-        return fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    fwd = bilstm_fwd_wide_train if with_states else bilstm_fwd_wide
-    return fwd(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh, compute_dtype)
+        outs = fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
+    else:
+        fwd = bilstm_fwd_wide_train if with_states else bilstm_fwd_wide
+        outs = fwd(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
+                   compute_dtype)
+    if Hp == H:
+        return outs
+    return tuple(o[..., :H].contiguous() for o in outs)
 
 
 def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
               dyf, dyb, dhn, dcn, compute_dtype):
-    """One layer's backward sweep on its route, with the contract of
-    ``bilstm_bwd``: ``(dxf, dxb, dgc, dbias)``. The wide route recomputes
-    the input gates with the forward's kernel (the same dispatch, so the
-    same f32 bits), runs the lite sweep, and forms dx, ``dgc`` and ``dbias``
-    with ``ops/lstm.py:input_grads``."""
+    """One layer's backward on its route at its ``padded_width``, with the
+    contract of ``ops/lstm.py:bidir_layer_bwd``: ``(dxf, dxb, dW_ih (2, 4H,
+    E), dW_hh (2, G, 4H, H), dbias (2, 4H))``, the weight gradients f32.
+    The sweep is ``bilstm_bwd`` (resident) or, on the wide route, the input
+    gates recomputed with the forward's kernel (the same dispatch, so the
+    same f32 bits), the lite sweep, and dx, ``dgc`` and ``dbias`` from
+    ``ops/lstm.py:input_grads``; then ``bilstm_wgrad``. A padded layer's
+    states and cotangents are grown back to Hp units by zeros (the padded
+    units' values: ``pad_layer``) and its gradients cut back to H."""
     x_parts = tuple(x_parts)
     E_parts = [p.shape[-1] for p in x_parts]
-    if layer_route(E_parts, hs_f.shape[-1], compute_dtype) == "resident":
-        return bilstm_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                          dyf, dyb, dhn, dcn, compute_dtype)
-    dgates = bilstm_bwd_lite(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths, w_hh,
-                             hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
-    return input_grads(dgates, w_ih, E_parts)
+    H = hs_f.shape[-1]
+    Hp = padded_width(E_parts, H, compute_dtype)
+    route = layer_route(E_parts, Hp, compute_dtype)
+    w_ih, w_hh, bias = pad_layer(w_ih, w_hh, bias, H, Hp)
+    hs_f, hs_b, cs_f, cs_b = (pad_units(t, H, Hp) for t in (hs_f, hs_b, cs_f, cs_b))
+    dyf, dyb = (tuple(pad_units(t, H, Hp) for t in ts) for ts in (dyf, dyb))
+    dhn, dcn = (None if t is None else pad_units(t, H, Hp) for t in (dhn, dcn))
+    if route == "resident":
+        dxf, dxb, dgc, dbias = bilstm_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b,
+                                          cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+    else:
+        dgates = bilstm_bwd_lite(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths,
+                                 w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
+                                 compute_dtype)
+        dxf, dxb, dgc, dbias = input_grads(dgates, w_ih, E_parts)
+        del dgates
+    dw_ih, dw_hh = bilstm_wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
+    if Hp != H:
+        dw_ih = unpad_gate_rows(dw_ih, H, Hp, -2)
+        dw_hh = unpad_gate_rows(dw_hh, H, Hp, -2)[..., :H].contiguous()
+        dbias = unpad_gate_rows(dbias, H, Hp, -1)
+    return dxf, dxb, dw_ih, dw_hh, dbias
 
 
 # ------------------------------------------- the time-major recurrence op
 REC_MMA_WIDTHS = (32, 64)
+
+
+def recurrence_width(H: int, compute_dtype: torch.dtype) -> int:
+    """The width the recurrence kernels run an op of H units at: H where
+    ``recurrence_check`` takes it, else the next multiple of 32 (at least
+    32), each gate block of ``xg`` and ``w`` grown by zero units (the
+    exactness argument of ``pad_layer``; ``FusedLSTMRecurrence`` pads and
+    cuts back). ValueError past ``WIDE_MAX_THREADS`` (the kernels' 8-block
+    clusters hold at most 32 units a block) or for a compute dtype they do
+    not take."""
+    if not 1 <= H <= WIDE_MAX_THREADS:
+        raise ValueError(f"the recurrence op takes 1 <= H <= {WIDE_MAX_THREADS} (its kernels "
+                         f"hold at most 32 units in each of 8 blocks), got H={H}")
+    Hp = max(32, -(-H // 32) * 32)
+    recurrence_check(Hp, compute_dtype)
+    return Hp
 
 
 def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:

@@ -159,37 +159,62 @@ def recurrence_bwd(
     return dxg, recurrence_wgrad(hs, dxg, G, compute_dtype).to(w.dtype)
 
 
+def _padded(xg: torch.Tensor, w: torch.Tensor, H: int, Hp: int):
+    """``xg (T, D, B, 4H)`` and ``w (D, G, H, 4H)`` at Hp units (the same
+    tensors where Hp == H): every gate block grown by zeros, and ``w``'s h
+    rows too (``lstm_cuda.pad_layer`` says why the padded units stay 0 and
+    add nothing)."""
+    from intrepppid_tpu_torch.ops.lstm_cuda import pad_gate_rows, pad_units
+
+    return pad_gate_rows(xg, H, Hp, -1), pad_units(pad_gate_rows(w, H, Hp, -1), H, Hp, -2)
+
+
 class FusedLSTMRecurrence(torch.autograd.Function):
     """``apply(xg, valid, w, G, compute_dtype) -> (hs, hn, cn)``: gradients
     for ``xg`` and ``w``, none for ``valid``; ``cs`` is saved for the
     backward and not returned. CPU tensors run the plain versions above,
-    CUDA tensors the kernels (``ops/lstm_cuda.py``) or raise."""
+    CUDA tensors the kernels (``ops/lstm_cuda.py``) or raise. Both run at
+    ``lstm_cuda.recurrence_width(H)``: a width the kernels do not take is
+    padded with zero units, and what comes back is cut to H."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):
-        from intrepppid_tpu_torch.ops.lstm_cuda import lstm_recurrence_fwd
+        from intrepppid_tpu_torch.ops.lstm_cuda import lstm_recurrence_fwd, recurrence_width
 
         ctx.set_materialize_grads(False)
-        hs, cs, hn, cn = lstm_recurrence_fwd(xg, valid, w, G, compute_dtype)
+        H = w.shape[-2]
+        Hp = recurrence_width(H, compute_dtype)
+        xg_k, w_k = _padded(xg, w, H, Hp)
+        hs, cs, hn, cn = lstm_recurrence_fwd(xg_k, valid, w_k, G, compute_dtype)
         ctx.save_for_backward(xg, valid, w, hs, cs)
         ctx.G, ctx.compute_dtype = G, compute_dtype
-        return hs, hn, cn
+        if Hp == H:
+            return hs, hn, cn
+        return tuple(t[..., :H].contiguous() for t in (hs, hn, cn))
 
     @staticmethod
     def backward(ctx, dhs, dhn, dcn):
-        from intrepppid_tpu_torch.ops.lstm_cuda import lstm_recurrence_bwd, lstm_recurrence_wgrad
+        from intrepppid_tpu_torch.ops.lstm_cuda import (
+            lstm_recurrence_bwd,
+            lstm_recurrence_wgrad,
+            pad_units,
+            unpad_gate_rows,
+        )
 
         xg, valid, w, hs, cs = ctx.saved_tensors
         G, cd = ctx.G, ctx.compute_dtype
+        H, Hp = w.shape[-2], hs.shape[-1]
+        xg_k, w_k = _padded(xg, w, H, Hp)
 
         def f32(t):
-            return None if t is None else t.float().contiguous()
+            return None if t is None else pad_units(t.float(), H, Hp).contiguous()
 
-        dxg = lstm_recurrence_bwd(xg, valid, w, hs, cs, f32(dhs), f32(dhn), f32(dcn), G, cd)
+        dxg = lstm_recurrence_bwd(xg_k, valid, w_k, hs, cs, f32(dhs), f32(dhn), f32(dcn), G, cd)
         dw = None
         if ctx.needs_input_grad[2]:
-            dw = lstm_recurrence_wgrad(hs, dxg, G, cd).to(w.dtype)
-        return dxg, None, dw, None, None
+            dw = lstm_recurrence_wgrad(hs, dxg, G, cd)
+            dw = unpad_gate_rows(dw, H, Hp, -1)[..., :H, :].contiguous().to(w.dtype)
+        return unpad_gate_rows(dxg, H, Hp, -1), None, dw, None, None
 
 
 def fused_lstm_recurrence(

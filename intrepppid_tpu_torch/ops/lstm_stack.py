@@ -2,15 +2,16 @@
 (`intrepppid_tpu/ops/lstm_pallas_layer.py:1124-1283 pallas_bilstm_stack`).
 
 ``BiLSTMStack`` runs every layer's train forward on the layer's route
-(``lstm_cuda.layer_fwd``: outputs plus cell streams) and saves the x
-parts, lengths, weights, ``hs`` and ``cs`` of each layer. Its backward
-walks the layers top down: each layer's sweep on the same route
+(``lstm_cuda.layer_fwd``: outputs plus cell streams, at the layer's padded
+width and cut back to its H units) and saves the x parts, lengths,
+weights, ``hs`` and ``cs`` of each layer. Its backward walks the layers top
+down: each layer's sweep on the same route and its weight gradients
 (``lstm_cuda.layer_bwd``: the resident sweep, or the input gates, the lite
-sweep and the input-side products) then its weight gradients
-(``bilstm_wgrad``). An upper layer's input cotangent stays unsummed: its
-part-0 contributions from both directions, ``(dxf[0], dxb[0])``, become the
-lower layer's two ``hs_f`` cotangent streams, and ``(dxf[1], dxb[1])`` its
-``hs_b`` streams, summed in f32 inside the lower sweep (``:1255-1256``).
+sweep and the input-side products; then ``bilstm_wgrad``). An upper
+layer's input cotangent stays unsummed: its part-0 contributions from both
+directions, ``(dxf[0], dxb[0])``, become the lower layer's two ``hs_f``
+cotangent streams, and ``(dxf[1], dxb[1])`` its ``hs_b`` streams, summed in
+f32 inside the lower sweep (``:1255-1256``).
 Only layer 0's input cotangent is summed here. The top layer's ``hs``
 cotangents arrive as None when the caller reads only ``hn`` (the train step
 reads ``hn[-1]``); the sweep then takes no dy stream at all.
@@ -25,7 +26,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from intrepppid_tpu_torch.ops.lstm import LayerParams, grouped_w_hh
-from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_wgrad, layer_bwd, layer_fwd
+from intrepppid_tpu_torch.ops.lstm_cuda import layer_bwd, layer_fwd
 
 _PER_LAYER = 7  # saved per layer: w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b
 
@@ -91,12 +92,10 @@ class BiLSTMStack(torch.autograd.Function):
                 parts = tuple(saved[(l - 1) * _PER_LAYER + 3:(l - 1) * _PER_LAYER + 5])
             dhn = None if g_hn is None else g_hn[2 * l:2 * l + 2].float().contiguous()
             dcn = None if g_cn is None else g_cn[2 * l:2 * l + 2].float().contiguous()
-            dxf, dxb, dgc, dbias = layer_bwd(
+            dxf, dxb, dw_ih, dw_hh, dbias = layer_bwd(
                 parts, lengths, w_ih, w_hh, b, hs_f, hs_b, cs_f, cs_b,
                 dyf, dyb, dhn, dcn, cd,
             )
-            dw_ih, dw_hh = bilstm_wgrad(dgc, parts, hs_f, hs_b, w_hh.shape[1])
-            del dgc
             dt = ctx.weight_dtypes[3 * l:3 * l + 3]
             grads[3 * l] = dw_ih.to(dt[0])
             grads[3 * l + 1] = dw_hh.reshape(ctx.w_hh_shapes[l]).to(dt[1])

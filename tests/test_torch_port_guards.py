@@ -37,6 +37,17 @@ def test_port_has_files_to_scan():
             "lstm_recurrence.py", "infer.py", "chip_smoke.py"} <= names
 
 
+def kernel_source(name):
+    """``csrc/<name>.cu``, followed by the shared kernel header it includes
+    (the two f32 sweeps share theirs, ``bilstm_bwd_f32.cuh``)."""
+    from intrepppid_tpu_torch.ops import _build
+
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    if '#include "bilstm_bwd_f32.cuh"' in text:
+        text += (_build.CSRC / "bilstm_bwd_f32.cuh").read_text()
+    return text
+
+
 def test_every_kernel_source_is_built_and_bound():
     """Each CUDA source has a wrapper that loads it by name, and the shared
     header is part of every build's hash."""
@@ -49,13 +60,14 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
-                       "bilstm_fwd_wide_mma", "bilstm_wgrad_f32"}
+                       "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
-    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh"}
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh",
+                                                           "bilstm_bwd_f32.cuh"}
     # every constant the wrappers check is exported by its source, and the
     # tensor-core kernels share the fragment header
     for name, (getters, want) in lstm_cuda._CONSTANTS.items():
@@ -67,8 +79,9 @@ def test_every_kernel_source_is_built_and_bound():
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
                       ("bilstm_gates_mma", "mma_bf16("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
+                      ("bilstm_bwd_f32_onestage", "mma_tf32("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
-        text = (_build.CSRC / f"{name}.cu").read_text()
+        text = kernel_source(name)
         assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
     # the tensor-core lite sweep keeps the 8-block cluster split: both of its
@@ -88,10 +101,12 @@ def test_every_kernel_source_is_built_and_bound():
     # its weights once while staging them, and its dh product takes the
     # small weights in the m16 tile's rows 8-15 (two mma, four terms); the
     # weight gradient splits each fragment once after loading it (two B
-    # fragments, the four A fragments in a loop) and runs its three passes
-    for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_fwd_f32", 3, 6),
+    # fragments, the four A fragments in a loop) and runs its three passes;
+    # the one-stage sweep shares the f32 sweep's kernel
+    for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_bwd_f32_onestage", 6, 12),
+                             ("bilstm_fwd_f32", 3, 6),
                              ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3)):
-        text = (_build.CSRC / f"{name}.cu").read_text().rsplit("#include", 1)[1]
+        text = kernel_source(name).rsplit("#include", 1)[1]
         assert text.count("mma_tf32(") == mma and text.count("split_tf32(") == split, name
 
 

@@ -22,6 +22,7 @@ from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.ops import lstm_cuda
 from intrepppid_tpu_torch.ops.lstm import (
     bidir_layer,
+    bidir_layer_bwd,
     bidir_layer_sweep,
     bidir_layer_sweep_lite,
     bidir_layer_wgrad,
@@ -329,22 +330,48 @@ def test_recurrence_wrappers_take_plain_versions_on_cpu(mask):
     assert torch.all(hs[0][off[0]] == 0)
 
 
+def recurrence_at_width(Hp, xg, valid, w, G, dtype, dhs, dhn, dcn):
+    """The plain forward and backward at Hp units (every gate block of
+    ``xg`` and ``w`` grown by zero units, as ``fused_lstm_recurrence`` runs
+    a width its kernels do not take), cut back to H: ``(hs, hn, cn, dxg,
+    dw)``."""
+    H = w.shape[-2]
+    xg_p = lstm_cuda.pad_gate_rows(xg, H, Hp, -1)
+    w_p = lstm_cuda.pad_units(lstm_cuda.pad_gate_rows(w, H, Hp, -1), H, Hp, -2)
+
+    def pad(t):
+        return None if t is None else lstm_cuda.pad_units(t, H, Hp)
+
+    hs, cs, hn, cn = recurrence_fwd(xg_p, valid, w_p, G, dtype)
+    dxg, dw = recurrence_bwd(xg_p, valid, w_p, hs, cs, pad(dhs), pad(dhn), pad(dcn), G, dtype)
+    return (hs[..., :H], hn[..., :H], cn[..., :H], lstm_cuda.unpad_gate_rows(dxg, H, Hp, -1),
+            lstm_cuda.unpad_gate_rows(dw, H, Hp, -1)[..., :H, :])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recurrence_plain_backward_matches_autograd(dtype):
     """``recurrence_bwd`` against autograd through ``recurrence_fwd`` (f32;
     in bf16 autograd rounds the cotangents where the op does not, so only
-    the autograd unit's plumbing is held: same values as the plain pair)."""
+    the autograd unit's plumbing is held: same values as the plain pair at
+    the op's width, ``recurrence_width``: H = 8 runs at 32, padded; that
+    pair is the plain pair at H = 8 to 1e-6 in f32 and one bf16 rounding of
+    ``dw`` in bf16)."""
     T, D, B, H, G = 7, 3, 4, 8, 2
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, dtype, torch.device("cpu"),
                                                   "holes", seed=3)
     hs, cs, hn, cn = recurrence_fwd(xg, valid, w, G, dtype)
     dxg, dw = recurrence_bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
     assert dw.dtype == w.dtype and dxg.dtype == torch.float32
+    Hp = lstm_cuda.recurrence_width(H, dtype)
+    at_hp = recurrence_at_width(Hp, xg, valid, w, G, dtype, dhs, dhn, dcn)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    for a, b in zip(at_hp, (hs, hn, cn, dxg, dw)):
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(1.0, float(b.abs().max()))
     xg_g, w_g = xg.clone().requires_grad_(), w.clone().requires_grad_()
     out = fused_lstm_recurrence(xg_g, valid, w_g, G, dtype)
-    assert all(torch.equal(a, b) for a, b in zip(out, (hs, hn, cn)))
+    assert all(torch.equal(a, b) for a, b in zip(out, at_hp[:3]))
     torch.autograd.backward(out, [dhs, dhn, dcn])
-    assert torch.equal(xg_g.grad, dxg) and torch.equal(w_g.grad, dw)
+    assert torch.equal(xg_g.grad, at_hp[3]) and torch.equal(w_g.grad, at_hp[4])
     if dtype == torch.float32:
         xg_a, w_a = xg.clone().requires_grad_(), w.clone().requires_grad_()
         ref = recurrence_fwd(xg_a, valid, w_a, G, dtype)
@@ -354,7 +381,7 @@ def test_recurrence_plain_backward_matches_autograd(dtype):
     # only hn read: the other cotangents arrive as None
     xg_g.grad = w_g.grad = None
     fused_lstm_recurrence(xg_g, valid, w_g, G, dtype)[1].backward(dhn)
-    only = recurrence_bwd(xg, valid, w, hs, cs, None, dhn, None, G, dtype)
+    only = recurrence_at_width(Hp, xg, valid, w, G, dtype, None, dhn, None)[3:]
     assert torch.equal(xg_g.grad, only[0]) and torch.equal(w_g.grad, only[1])
 
 
@@ -402,7 +429,7 @@ def test_recurrence_check(H, dtype, ok):
         ([64], 64, torch.float32, "bilstm_bwd_f32"),   # f32: three tf32 passes
         ([64, 64], 64, torch.float32, "bilstm_bwd_f32"),
         ([32, 32], 32, torch.float32, "bilstm_bwd_f32"),
-        ([40], 80, torch.float32, "bilstm_bwd"),       # H > 64: the CUDA-core sweep
+        ([40], 80, torch.float32, "bilstm_bwd_f32_onestage"),  # H > 64: one stage
         ([32], 64, torch.bfloat16, "bilstm_bwd_mma"),  # (E + H) % 32 == 0
         ([128], 64, torch.bfloat16, "bilstm_bwd_mma"),
         ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
@@ -707,20 +734,34 @@ def _resident_before_f32(E_parts, H, dtype):
     return False
 
 
+def _route_and_width(E_parts, H, dtype):
+    """``(layer_route, padded_width)``, or ``(None, None)`` where no width
+    takes the layer."""
+    try:
+        return (lstm_cuda.layer_route(E_parts, H, dtype),
+                lstm_cuda.padded_width(E_parts, H, dtype))
+    except ValueError:
+        return None, None
+
+
 def test_f32_sweep_changes_no_route():
-    """``sweep_kernel`` hands f32 layers to ``bilstm_bwd_f32`` only where
-    ``bwd_launch_plan`` takes them too, so every (E_parts, H, dtype) keeps
-    the route it had; the new kernel takes each model shape in f32."""
+    """Every (E_parts, H, dtype) the resident route took before the f32
+    tensor-core sweeps keeps that route at its own width. A layer it did not
+    take is resident at its own width now only where an f32 tensor-core
+    sweep takes it (a tensor-core plan no longer waits on
+    ``bwd_launch_plan``); the others keep their route or are padded
+    (``padded_width``). The f32 sweep takes each model shape in f32."""
     for H in range(8, 272, 8):
         for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
             for dtype in (torch.float32, torch.bfloat16):
-                try:
-                    route = lstm_cuda.layer_route(E_parts, H, dtype)
-                except ValueError:
-                    route = None
+                route, Hp = _route_and_width(E_parts, H, dtype)
                 resident = _resident_before_f32(E_parts, H, dtype)
-                assert (route == "resident") == resident, (E_parts, H, dtype)
+                if resident:
+                    assert (route, Hp) == ("resident", H), (E_parts, H, dtype)
+                elif (route, Hp) == ("resident", H):
+                    assert lstm_cuda.sweep_kernel(E_parts, H, dtype) in (
+                        "bilstm_bwd_f32", "bilstm_bwd_f32_onestage"), (E_parts, H, dtype)
                 if resident and dtype == torch.float32 and H <= 64 and H % 16 == 0:
                     assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_f32"
 
@@ -900,21 +941,21 @@ def _resident_before_f32_forward(E_parts, H, dtype):
 
 
 def test_f32_forward_changes_no_route():
-    """``fwd_kernel`` hands f32 layers to ``bilstm_fwd_f32`` only where
-    ``launch_plan`` takes them too, so every (E_parts, H, dtype) keeps the
-    route it had, and bf16 keeps its kernel; the new kernel takes each
-    model shape in f32."""
+    """Every (E_parts, H, dtype) the resident route took before the f32
+    tensor-core forward keeps that route at its own width; a layer it did
+    not take is resident at its own width now only where ``bilstm_fwd_f32``
+    takes it (``fwd_f32_plan`` no longer waits on ``launch_plan``), and bf16
+    keeps its kernel; the new kernel takes each model shape in f32."""
     for H in range(8, 272, 8):
         for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
                         [32, 32], [48, 48], [64, 64], [128, 128], [256, 256]):
             for dtype in (torch.float32, torch.bfloat16):
-                try:
-                    route = lstm_cuda.layer_route(E_parts, H, dtype)
-                except ValueError:
-                    route = None
-                assert (route == "resident") == _resident_before_f32_forward(
-                    E_parts, H, dtype), (E_parts, H, dtype)
-                if route != "resident":
+                route, Hp = _route_and_width(E_parts, H, dtype)
+                if _resident_before_f32_forward(E_parts, H, dtype):
+                    assert (route, Hp) == ("resident", H), (E_parts, H, dtype)
+                elif (route, Hp) == ("resident", H):
+                    assert lstm_cuda.fwd_kernel(E_parts, H, dtype) == "bilstm_fwd_f32"
+                if (route, Hp) != ("resident", H):
                     continue
                 kernel = lstm_cuda.fwd_kernel(E_parts, H, dtype)
                 if dtype == torch.bfloat16:
@@ -1016,9 +1057,13 @@ def test_lite_kernel_by_width_and_dtype(H, dtype, kernel):
 
 
 def _route_without_the_wide_dispatch(E_parts, H, dtype):
-    """``layer_route``'s rule, written out: resident where the resident
-    forward and sweep dispatches take the layer, else wide where
-    ``wide_check`` passes, else None."""
+    """``layer_route``'s rule, written out: at the layer's ``padded_width``
+    (None where none), resident where the resident forward and sweep
+    dispatches take the layer, else wide where ``wide_check`` passes."""
+    try:
+        H = lstm_cuda.padded_width(E_parts, H, dtype)
+    except ValueError:
+        return None
     try:
         lstm_cuda.fwd_kernel(E_parts, H, dtype)
         lstm_cuda.sweep_kernel(E_parts, H, dtype)
@@ -1036,16 +1081,14 @@ def _route_without_the_wide_dispatch(E_parts, H, dtype):
 def test_tensor_core_wide_kernels_change_no_route(dtype):
     """The input-gate and lite-sweep dispatches pick kernels inside the wide
     route and never move a layer between routes: every (E_parts, H) keeps
-    its route, every wide layer has an input-gate and a sweep kernel, and
-    the scaled configuration's layers take the tensor-core ones in bf16."""
-    for H in range(8, 272, 8):
+    its route (at its padded width), every wide layer has an input-gate and
+    a sweep kernel, and the scaled configuration's layers take the
+    tensor-core ones in bf16."""
+    for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
-            try:
-                route = lstm_cuda.layer_route(E_parts, H, dtype)
-            except ValueError:
-                route = None
-            assert route == _route_without_the_wide_dispatch(E_parts, H, dtype), (E_parts, H)
+            route, H = _route_and_width(E_parts, H0, dtype)
+            assert route == _route_without_the_wide_dispatch(E_parts, H0, dtype), (E_parts, H0)
             if route != "wide":
                 continue
             gates, lite = lstm_cuda.gates_kernel(E_parts, H, dtype), lstm_cuda.lite_kernel(H, dtype)
@@ -1144,16 +1187,14 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     keeps its route, every wide layer has a forward kernel (the tensor-core
     one in bf16 at H = 128 and 256), and every layer whose widths are whole
     128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
-    too); the others keep ``bilstm_wgrad.cu`` where it takes them."""
+    too); the others keep ``bilstm_wgrad.cu`` where it takes them. Each at
+    the layer's padded width."""
     bf16 = dtype == torch.bfloat16
-    for H in range(8, 272, 8):
+    for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
-            try:
-                route = lstm_cuda.layer_route(E_parts, H, dtype)
-            except ValueError:
-                route = None
-            assert route == _route_without_the_wide_dispatch(E_parts, H, dtype), (E_parts, H)
+            route, H = _route_and_width(E_parts, H0, dtype)
+            assert route == _route_without_the_wide_dispatch(E_parts, H0, dtype), (E_parts, H0)
             if route is None:
                 continue
             if route == "wide":
@@ -1310,8 +1351,9 @@ def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
 def test_train_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Train forward, sweep and wgrad against their plain versions. Groups
     of 6 rows (H = 64, 80) and 8 rows (H = 32) are padded to whole row
-    tiles. At H = 80 (a one-layer model at embedding 80) every kernel is a
-    CUDA-core one, the sweep ``bilstm_bwd.cu``."""
+    tiles. At H = 80 (layer 0 of a model at embedding 80) the forward and
+    wgrad are CUDA-core ones, and the sweep is ``bilstm_bwd.cu`` in bf16 and
+    the one-stage 3xTF32 sweep in f32."""
     T = 30
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -2253,3 +2295,185 @@ def test_recurrence_sweep_f32_edges_on_card(cuda_device):
                                           cd)
     with pytest.raises(ValueError, match="no sweep kernel named"):
         lstm_cuda.lstm_recurrence_bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, 1, cd, kernel="fast")
+
+
+# ------------------------ the one-stage f32 sweep and the padded widths (card)
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,ny,final", [
+    ([80], 80, 5, 30, 2, True), ([80], 80, 1, 13, 0, False), ([80], 80, 3, 27, 1, True),
+    ([40], 80, 2, 18, 2, False), ([40, 40], 80, 1, 20, 1, True), ([16], 80, 4, 20, 2, True)])
+def test_bwd_f32_onestage_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny, final):
+    """The one-stage f32 sweep (three tf32 passes, the next step's tile in
+    registers) against its plain twin within 1e-4 x max(1, max|ref|): 1 and
+    2 input parts, 0-2 dy streams, with and without final-state
+    cotangents, groups of 5, 6, 9, 10 and 13 rows, rows of length 0, 1 and
+    T, rows 8-15 short of T. The dispatch hands ``bilstm_bwd`` to it; the
+    CUDA-core sweep asked for by name agrees too where it takes the shape
+    (not E = 16 at H = 80, which only the tensor-core plan takes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B + 7)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_f32_onestage)
+    before = [f.launches for f in wrappers]
+    _close(flat(lstm_cuda.bilstm_bwd_f32_onestage(*args)), flat(want), 1e-4)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 1e-4)
+    try:
+        lstm_cuda.bwd_launch_plan(E_parts, H, cd)
+        cores = 1
+    except ValueError:
+        cores = 0
+    if cores:
+        _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [cores, 2]
+
+
+@pytest.mark.cuda
+def test_bwd_f32_onestage_at_the_main_path_shape_on_card(cuda_device):
+    """Layer 0 of the two-layer model at embedding 80: E = H = 80, 400 rows
+    in 5 groups, two dy streams, T = 1500, the main path's lengths (groups
+    at 0, 1 and T, the rest random), against the plain twin at 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, G = torch.float32, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [80], 80, G, cd,
+                                                                 cuda_device, seed=11)
+    lengths[:240] = torch.tensor([0, 1, T], device=cuda_device).repeat_interleave(80)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            cd)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    _close(flat(lstm_cuda.bilstm_bwd_f32_onestage(*args)), flat(bidir_layer_sweep(*args)), 1e-4)
+
+
+@pytest.mark.cuda
+def test_bwd_f32_onestage_edges_on_card(cuda_device):
+    """An empty batch launches nothing; bf16 operands and H = 96 raise in
+    the one-stage wrapper (nothing falls back)."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [80], 80, 2, cd,
+                                                                 cuda_device)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    before = lstm_cuda.bilstm_bwd_f32_onestage.launches
+    empty = lambda t: t[:, :0].contiguous()  # noqa: E731
+    out = lstm_cuda.bilstm_bwd_f32_onestage(
+        tuple(empty(p) for p in parts), lengths[:0], w_ih, w_hh[:, :1].contiguous(), bias,
+        *(empty(t) for t in (hs_f, hs_b, cs_f, cs_b)), (), (), None, None, cd)
+    assert out[2].shape == (2, 4, 0, 320) and not out[3].any()
+    assert lstm_cuda.bilstm_bwd_f32_onestage.launches == before
+    bf = layer_case(4, 10, [80], 80, 2, torch.bfloat16, cuda_device)
+    hb = bidir_layer(*bf[:5], torch.bfloat16, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32_onestage kernel takes float32"):
+        lstm_cuda.bilstm_bwd_f32_onestage(*bf[:5], hb[0], hb[1], hb[4], hb[5], bf[5][:1],
+                                          bf[5][2:3], None, None, torch.bfloat16)
+    wide = layer_case(4, 10, [48], 96, 2, cd, cuda_device)
+    hw = bidir_layer(*wide[:5], cd, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_f32_onestage kernel takes float32"):
+        lstm_cuda.bilstm_bwd_f32_onestage(*wide[:5], hw[0], hw[1], hw[4], hw[5], wide[5][:1],
+                                          wide[5][2:3], None, None, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E_parts,H,G", [([80, 80], 80, 1), ([112], 112, 5),
+                                         ([112, 112], 112, 1), ([48, 48], 48, 1),
+                                         ([80], 80, 5), ([240], 240, 1)])
+def test_repaired_widths_match_the_cpu_on_card(cuda_device, dtype, E_parts, H, G):
+    """The layers the width repair opens, padded (``padded_width`` > H) or
+    taken natively (the f32 tensor-core sweep at E = 96, H = 48; the
+    one-stage sweep at E = H = 80), on the card: ``layer_fwd`` (train
+    variant) and ``layer_bwd`` against the CPU plain layer at the true H,
+    within 1e-4 x max(1, max|ref|) in f32 and 3e-2 in bf16, each launching
+    the kernels its route's pickers name at the padded width."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 20, 30
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
+                                                                 cuda_device, seed=H)
+    ny = 2 if len(E_parts) == 1 else 1
+    Hp = lstm_cuda.padded_width(E_parts, H, dtype)
+    if lstm_cuda.layer_route(E_parts, H, dtype) == "resident":
+        names = {"bilstm_bwd_mma": lstm_cuda.bilstm_bwd_mma, "bilstm_bwd": lstm_cuda.bilstm_bwd,
+                 "bilstm_bwd_f32": lstm_cuda.bilstm_bwd_f32,
+                 "bilstm_bwd_f32_onestage": lstm_cuda.bilstm_bwd_f32_onestage}
+        ran = [names[lstm_cuda.sweep_kernel(E_parts, Hp, dtype)]]
+    else:
+        ran = [getattr(lstm_cuda, lstm_cuda.gates_kernel(E_parts, Hp, dtype)),
+               getattr(lstm_cuda, lstm_cuda.lite_kernel(Hp, dtype))]
+    ran.append(getattr(lstm_cuda, lstm_cuda.wgrad_kernel(E_parts, Hp, dtype)))
+    before = [f.launches for f in ran]
+    fwd = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
+    hs_f, hs_b, _, _, cs_f, cs_b = fwd
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn, dcn, dtype)
+    bwd = lstm_cuda.layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(ran, before)), [f.__name__ for f in ran]
+    cpu = lambda t: (tuple(x.cpu() for x in t) if isinstance(t, (tuple, list))  # noqa: E731
+                     else t.cpu())
+    want_f = bidir_layer(*map(cpu, (parts, lengths, w_ih, w_hh, bias)), dtype, with_states=True)
+    _close([t.cpu() for t in fwd], want_f, tol)
+    want_b = bidir_layer_bwd(*map(cpu, args[:-1]), dtype)
+    flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+    _close([t.cpu() for t in flat(bwd)], flat(want_b), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hp", [(80, 96), (48, 64), (16, 32)])
+def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
+    """``fused_lstm_recurrence`` at a width the kernels do not take runs at
+    ``recurrence_width`` (zero units in each gate block); its outputs and
+    the gradients of ``xg`` and ``w`` equal the CPU plain op's at the true
+    H (1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16)."""
+    assert lstm_cuda.recurrence_width(H, dtype) == Hp
+    T, D, B, G = 12, 2, 10, 2
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, dtype, cuda_device, "holes",
+                                                  seed=H)
+    before = lstm_cuda.lstm_recurrence_fwd.launches
+    outs, grads = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        xg_r = xg.to(dev).clone().requires_grad_()
+        w_r = w.to(dev).clone().requires_grad_()
+        out = fused_lstm_recurrence(xg_r, valid.to(dev), w_r, G, dtype)
+        torch.autograd.backward(out, [t.to(dev) for t in (dhs, dhn, dcn)])
+        outs.append([t.detach().cpu() for t in out])
+        grads.append([xg_r.grad.cpu(), w_r.grad.cpu()])
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_fwd.launches == before + 1
+    _close(outs[0], outs[1], tol)
+    _close(grads[0], grads[1], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
+    """The default two-layer model at embedding 80: layer 0 resident (the
+    one-stage sweep in f32, ``bilstm_bwd.cu`` in bf16), the stacked layer
+    padded to 96 on the wide route; its gradients equal the CPU plain
+    path's (1e-4 x max(1, max|grad|) in f32, 2^-7 in bf16)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dtype == torch.float32
+    wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd,
+                lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(not f32), 1]
+    want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
+    tol = 1e-4 if f32 else 2.0 ** -7
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
+            1.0, float(ref.abs().max())), name
