@@ -42,10 +42,12 @@ exits non-zero with no result):
    rows in 3 groups, T = 1, rows of length 0; the one-stage f32 sweep at
    E = H = 80, T = 1 and 5); at their own main path's shapes (layer 0 of
    the two-layer model at embedding 80: E = H = 80, 5 groups, two dy
-   streams a direction) ``bilstm_fwd.cu`` (both variants) and
-   ``bilstm_wgrad.cu`` in f32 and bf16, the one-stage 3xTF32 sweep
-   ``bilstm_bwd_f32_onestage`` in f32 (in turns with ``bilstm_bwd.cu`` by
-   name) and ``bilstm_bwd.cu`` in bf16; then each kernel, the
+   streams a direction) ``bilstm_fwd.cu`` (both variants) in f32 and
+   bf16, ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last
+   gate tile masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name),
+   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns
+   with ``bilstm_bwd.cu`` by name) and ``bilstm_bwd.cu`` in bf16; then
+   each kernel, the
    new and the old in turns (new, old, old, new, in the same run), and a
    PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
@@ -63,21 +65,30 @@ exits non-zero with no result):
    ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2
    steps and an eval step of the two-layer model at embedding 80 in f32 and
    in bf16: layer 0's forward (both variants) ``bilstm_fwd.cu``, its wgrad
-   ``bilstm_wgrad.cu``, its sweep ``bilstm_bwd_f32_onestage`` in f32 and
-   ``bilstm_bwd.cu`` in bf16; the stacked layer padded to H = 96 on the
+   ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` in bf16 (and
+   ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
+   f32 and ``bilstm_bwd.cu`` in bf16; the stacked layer padded to H = 96 on the
    wide route; then one step's gradients (and at embedding 80 an eval step)
    on the card held against the port's CPU plain path at a small size, in
    f32 and bf16 (also at embedding 80, two layers);
-5b. widths — the layers the width repair opens (``ops/lstm_cuda.py:
-   padded_width``: the stacked layer at embedding 80, run at H = 96, and
-   both layers at embedding 112, run at 128), 400 rows, T = 1500, f32 and
+5b. widths — the layers the width repairs open (``ops/lstm_cuda.py:
+   padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
+   at H = 96; both layers at embedding 112 and 100, run at 128 with parts
+   of 112; layer 0 at embedding 50, run at H = 64 with E = 56 in f32 and
+   64 in bf16; both layers at 272, run at 288), 400 rows, T = 1500, f32 and
    bf16: ``layer_fwd`` and ``layer_bwd`` against the plain layer at the
-   true H, the kernels they ran, their times beside their bounds at the
-   true and the padded H and cuDNN at the true H; then a gradient step and
+   true widths, the kernels they ran, their times beside their bounds at
+   the true and the padded widths and cuDNN at the true ones; the
+   two-layer model at embedding 100 at the train shape (80 pairs,
+   T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 and at
+   272 in bf16, each with the kernels it must launch and must not; the
+   288-thread CUDA-core wide forward (both variants) and lite sweep at
+   their main path's shapes (layer 0 at embedding 272) against their
+   twins, timed beside their bounds and cuDNN; then a gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
-   T = 64), in f32 and bf16, of two-layer models at embedding 48 and 112
-   and of the recurrence backend at embedding 80 (run at 96), each with the
-   kernels it must launch;
+   T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
+   112 and (bf16) 272 and of the recurrence backend at embedding 80 (run
+   at 96), each with the kernels it must launch;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -127,7 +138,10 @@ exits non-zero with no result):
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and at H = 64
    and 32 in bf16, which also does the input projection; for the weight
    gradient one batched cuBLAS product on the rounded operands and, in
-   bf16, the rounding, layout and product together);
+   bf16, the rounding, layout and product together); then the op past 256
+   units (H = 288 on the cluster kernels' 288-thread instance, 512 and
+   1024 on the global-weight one) against its twins, and one call at
+   H = 512 (400 rows, T = 300) timed beside its bound and cuDNN;
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -137,7 +151,9 @@ exits non-zero with no result):
    and the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
    embedding 128, whose sweep only the cluster kernel takes; a profiled
    step, peak memory, and the card's gradients against the CPU's on the
-   same backend, in f32 and in bf16;
+   same backend, in f32 and in bf16, and of a one-layer model at embedding
+   320 (the forward and the cluster sweep on their global-weight
+   instance);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -146,7 +162,10 @@ exits non-zero with no result):
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
 11. the ``kernels`` line (twenty-seven kernels, each with launches > 0 on
-    a main path), the card's name and power limit, and the result.
+    a main path; the 288-thread instances, the bf16 wgrad at H = 80 and
+    the recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*``
+    fields of their kernels' entries), the card's name and power limit,
+    and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -212,6 +231,7 @@ def phase_build() -> dict:
         bwd_mma_plan,
         fwd_f32_plan,
         fwd_mma_plan,
+        WIDE_ROWS,
         launch_plan,
         recurrence_f32_smem,
         recurrence_mma_smem,
@@ -259,6 +279,14 @@ def phase_build() -> dict:
     for H in FWD_WIDE_MMA_WIDTHS:
         for rows in FWD_WIDE_MMA_ROWS:
             smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
+    # the 288-thread instances of the CUDA-core cluster kernels, and the
+    # recurrence kernels' global-weight instance (no weight slice in shared memory)
+    for kind in ("fwd", "bwd"):
+        for R in WIDE_ROWS:
+            if wide_smem(kind, 288, R) <= SMEM_LIMIT:
+                smem[f"{kind}_wide H=288 R={R}"] = wide_smem(kind, 288, R)
+        for H in (320, 512, 1024):
+            smem[f"recurrence_{kind} H={H} R=2 (global weights)"] = wide_smem(kind, H, 2)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -864,22 +892,26 @@ def embedding_80_kernels(dev) -> dict:
     f32 the forward (both variants) ``bilstm_fwd.cu``, the sweep
     ``bilstm_bwd_f32_onestage.cu`` (three tf32 passes) and wgrad
     ``bilstm_wgrad.cu``; in bf16 ``bilstm_fwd.cu``, ``bilstm_bwd.cu`` and
-    ``bilstm_wgrad.cu`` (the other tensor-core kernels take H <= 64, and
-    H % 32 == 0 for wgrad). Each is held against its plain twin with the
-    main path's lengths (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by
-    name too), then timed at full lengths beside the twin (timed once, in
-    the check), its bound (the one-stage sweep at 495/3 TFLOP/s, the others
-    at their dtype's rate), cuDNN's one-layer training forward, inference
-    forward and backward for the input in the same dtype, and cuBLAS's
-    products for wgrad, TF32 off; the one-stage sweep in turns with
-    ``bilstm_bwd.cu`` by name (new, old, old, new). One dict per dtype and
-    kernel: "fwd", "fwd_eval", "bwd", "wgrad"."""
+    ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H = 320; the other
+    tensor-core kernels take H <= 64). Each is held against its plain twin
+    with the main path's lengths (groups at 0, 1 and T; in f32
+    ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``), then timed
+    at full lengths beside the twin (timed once, in the check), its bound
+    (the one-stage sweep at 495/3 TFLOP/s, the others at their dtype's
+    rate), cuDNN's one-layer training forward, inference forward and
+    backward for the input in the same dtype, and cuBLAS's products for
+    wgrad, TF32 off; the one-stage sweep in turns with ``bilstm_bwd.cu`` by
+    name and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old,
+    old, new). One dict per dtype and kernel: "fwd", "fwd_eval", "bwd",
+    "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     E_parts, H, G, ny = [80], 80, G_TRAIN, 2
     picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
-              torch.bfloat16: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad")}
+              torch.bfloat16: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad_mma")}
+    # the kernel each dtype's yardstick by name takes the same operands to
+    by_name = {"bwd": (torch.float32, "bilstm_bwd"), "wgrad": (torch.bfloat16, "bilstm_wgrad")}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -893,7 +925,7 @@ def embedding_80_kernels(dev) -> dict:
                  "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
         out = {k: {"kernel": name, **shape} for k, name in (
             ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"),
-            ("bwd", picked[cd][1]), ("wgrad", "bilstm_wgrad"))}
+            ("bwd", picked[cd][1]), ("wgrad", picked[cd][2]))}
         size = torch.empty((), dtype=cd).element_size()
         work = train_layer_work(sum(E_parts), H, size, ny)
         peaks = {"bwd": kernel_peak(cd, picked[cd][1])}
@@ -909,14 +941,18 @@ def embedding_80_kernels(dev) -> dict:
             calls["bwd"] = lambda: L.bilstm_bwd(*args)
             dgc = calls["bwd"]()[2]
             calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
+            # the CUDA-core kernel asked for by name on the same operands
+            old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
+                   "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
+                                                   kernel="bilstm_wgrad")}
             if full:
                 for k, call in calls.items():
-                    if k == "bwd" and f32:
-                        # new, old, old, new: both sweeps in one run, on one card
+                    if by_name.get(k, (None,))[0] == cd:
+                        # new, old, old, new: both kernels in one run, on one card
                         out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
-                            call, lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"), 3)
+                            call, old[k], 3)
                         out[k]["cuda_core_bound_ms"], _ = bound(
-                            [(*work[k], kernel_peak(cd, "bilstm_bwd"))])
+                            [(*work[k], kernel_peak(torch.float32, by_name[k][1]))])
                     else:
                         out[k]["ms"] = time_ms(call, 3)
                     add_bounds(out[k], {k: work[k]}, cd, peaks)
@@ -940,9 +976,14 @@ def embedding_80_kernels(dev) -> dict:
                            ("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
                 if f32:
                     res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
-                        gnames, flat(L.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(ref))})
+                        gnames, flat(old["bwd"]()), flat(ref))})
                     out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                         flat(calls["bwd"]()), flat(ref)))
+                else:
+                    res["wgrad"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
+                                         zip(("dW_ih", "dW_hh"), old["wgrad"](), ref_w)})
+                    out["wgrad"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
+                        calls["wgrad"](), ref_w))
                 torch.cuda.synchronize()
                 for k, r in res.items():
                     out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
@@ -951,7 +992,7 @@ def embedding_80_kernels(dev) -> dict:
                         raise AssertionError(
                             f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
                 del want, ref, ref_w, res
-            del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, dgc
+            del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, dgc, old
         lib = cudnn_stack_times(dev, cd, E=80, H=80, layers=1)
         for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
                        ("bwd", "cudnn_bwd_data_ms")):
@@ -1229,18 +1270,21 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                      "bilstm_bwd_f32_onestage"))
     # the default two-layer model at embedding 80, an eval step after its
     # train steps: layer 0 (E = H = 80) is resident, its forward (both
-    # variants) bilstm_fwd.cu and wgrad bilstm_wgrad.cu, its sweep the
+    # variants) bilstm_fwd.cu, its wgrad bilstm_wgrad.cu in f32 and
+    # bilstm_wgrad_mma.cu (the masked gate tile) in bf16, its sweep the
     # one-stage 3xTF32 kernel in f32 and bilstm_bwd.cu in bf16; the stacked
     # layer (E = 2 x 80) runs padded to H = 96 on the wide route
     e80 = {}
     for dtype, expect, never in (
-        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates", "bilstm_wgrad_f32"),
+        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates", "bilstm_wgrad_f32",
+                         "bilstm_wgrad"),
          ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_gates_mma", "bilstm_wgrad_mma")),
         (torch.bfloat16, ("bilstm_bwd", "bilstm_gates_mma", "bilstm_wgrad_mma"),
-         ("bilstm_bwd_f32_onestage", "bilstm_bwd_mma", "bilstm_gates", "bilstm_wgrad_f32")),
+         ("bilstm_bwd_f32_onestage", "bilstm_bwd_mma", "bilstm_gates", "bilstm_wgrad_f32",
+          "bilstm_wgrad")),
     ):
         e80[str(dtype).replace("torch.", "")] = f32_steps(
-            dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad",
+            dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
                            "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite")
             + expect, ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
                        "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma") + never,
@@ -1252,7 +1296,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
             (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_layer_fwd", "bilstm_bwd_lite",
                              "bilstm_fwd_wide", "bilstm_wgrad_f32", "bilstm_wgrad")),
             (torch.bfloat16, ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_bwd_lite",
-                              "bilstm_fwd_wide", "bilstm_wgrad_mma", "bilstm_wgrad")))}
+                              "bilstm_fwd_wide", "bilstm_wgrad_mma")))}
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
@@ -1302,12 +1346,16 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
     profile = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
-                        "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel"),
+                        "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel",
+                        "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
-                          "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel"),
+                          "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
+                          "bilstm_bwd_mma_kernel", "bilstm_bwd_lite_mma_kernel",
+                          "lstm_recurrence_bwd_mma_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
-                          "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel"),
+                          "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
+                          "lstm_recurrence_wgrad_mma_kernel"),
                 "gates": "bilstm_gates",
                 "gemm": ("gemm", "nvjet", "xmma")})
     return {"dtype": str(dtype).replace("torch.", ""), "steps": steps, "eval_step": eval_step,
@@ -1381,11 +1429,28 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
 
 
 # ------------------------------------------------------------------ widths
-# the layers the width repair opens (E parts, H, weight groups), each run at
-# its padded width: the stacked layer at embedding 80 (96, wide), layer 0
-# and the stacked layer at embedding 112 (128, wide)
+# the train-variant wrapper of each resident forward kernel
+RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
+                      "bilstm_fwd_f32": "bilstm_layer_fwd_train_f32",
+                      "bilstm_fwd": "bilstm_layer_fwd_train"}
+# the layers the width repairs open (E parts, H, weight groups), each run at
+# its padded shape: the stacked layer at embedding 80 (96, wide), layer 0
+# and the stacked layer at embedding 112 (128, wide), layer 0 at embedding
+# 50 (H 64, E 56 in f32 and 64 in bf16, resident), both layers at embedding
+# 100 (H 128, parts of 112, wide) and at 272 (288, wide: the 288-thread
+# CUDA-core wide kernels in bf16 and f32)
 PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 112, G_TRAIN),
-                 (("stacked", 112), [112, 112], 112, 1))
+                 (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
+                 (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
+                 (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
+# the wide route's kernels, by dtype (the tensor-core ones at 128 and 256;
+# at 96 and 288 the CUDA-core forward and sweep in bf16 too)
+WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
+             "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
+WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
+            "bilstm_wgrad_f32")
+WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                 "bilstm_bwd_lite", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch
 WIDTH_STEPS = (
@@ -1393,7 +1458,14 @@ WIDTH_STEPS = (
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
     ("layer", 48, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
                                    "bilstm_layer_fwd_train", "bilstm_layer_fwd",
-                                   "bilstm_bwd_mma", "bilstm_wgrad", "bilstm_wgrad_mma")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma")),
+    ("layer", 50, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
+                                  "bilstm_bwd_f32", "bilstm_wgrad_f32")),
+    ("layer", 50, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma")),
+    ("layer", 100, torch.float32, WIDE_F32),
+    ("layer", 100, torch.bfloat16, WIDE_BF16),
+    ("layer", 272, torch.bfloat16, WIDE_288_BF16),
     ("layer", 112, torch.float32, ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
                                    "bilstm_bwd_lite", "bilstm_wgrad_f32")),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
@@ -1407,15 +1479,15 @@ WIDTH_STEPS = (
 
 
 def padded_layer_timings(dev) -> list:
-    """Each layer of ``PADDED_LAYERS`` on its route at its padded width
+    """Each layer of ``PADDED_LAYERS`` on its route at its padded shape
     (``lstm_cuda.layer_fwd`` train variant, and ``layer_bwd``: the sweep and
     the weight gradients), 400 rows, f32 and bf16: held against the plain
-    layer at its true H (``bidir_layer``, ``bidir_layer_bwd``) at T = 300
-    with the main path's lengths, the kernels it launched, then timed at
-    T = 1500, full lengths, beside its bound at the true H and at the padded width
-    (the dtype's rate; what the padding costs) and cuDNN's one-layer
-    training forward and backward (input and weights) at the true H in the
-    same dtype, TF32 off."""
+    layer at its true widths (``bidir_layer``, ``bidir_layer_bwd``) at
+    T = 300 with the main path's lengths, the kernels it launched, then
+    timed at T = 1500, full lengths, beside its bound at the true widths
+    and at the padded ones (the dtype's rate; what the padding costs) and
+    cuDNN's one-layer training forward and backward (input and weights) at
+    the true widths in the same dtype, TF32 off."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_bwd
 
@@ -1424,9 +1496,10 @@ def padded_layer_timings(dev) -> list:
     for (what, width), E_parts, H, G in PADDED_LAYERS:
         ny = 2 if len(E_parts) == 1 else 1
         for cd in (torch.float32, torch.bfloat16):
-            Hp = L.padded_width(E_parts, H, cd)
+            Hp, Ep = L.padded_width(E_parts, H, cd), L.padded_parts(E_parts, H, cd)
             row = {"layer": f"{what}, embedding {width}", "E_parts": E_parts, "H": H,
-                   "padded_H": Hp, "route": L.layer_route(E_parts, H, cd), "G": G, "ny": ny,
+                   "padded_H": Hp, "padded_parts": list(Ep),
+                   "route": L.layer_route(E_parts, H, cd), "G": G, "ny": ny,
                    "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
                    "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
             size = torch.empty((), dtype=cd).element_size()
@@ -1448,10 +1521,14 @@ def padded_layer_timings(dev) -> list:
                 got_f, got_b = fwd(), bwd()
                 torch.cuda.synchronize()
                 row["kernels"] = sorted(n for n, fn in counters.items() if fn.launches)
-                fwd_name = L.wide_fwd_kernel(Hp, cd).replace("wide", "wide_train")
-                want = {L.gates_kernel(E_parts, Hp, cd), fwd_name, L.lite_kernel(Hp, cd),
-                        L.wgrad_kernel(E_parts, Hp, cd)}
-                if row["route"] != "wide" or not want <= set(row["kernels"]):
+                if row["route"] == "wide":
+                    want = {L.gates_kernel(Ep, Hp, cd), L.lite_kernel(Hp, cd),
+                            L.wide_fwd_kernel(Hp, cd).replace("wide", "wide_train")}
+                else:
+                    want = {RESIDENT_TRAIN_FWD[L.fwd_kernel(Ep, Hp, cd)],
+                            L.sweep_kernel(Ep, Hp, cd)}
+                want.add(L.wgrad_kernel(Ep, Hp, cd))
+                if not want <= set(row["kernels"]):
                     raise AssertionError(f"a padded layer ran {row['kernels']}, not {want}")
                 want_f = bidir_layer(*fwd_args, with_states=True)
                 want_b = bidir_layer_bwd(*args)
@@ -1466,8 +1543,8 @@ def padded_layer_timings(dev) -> list:
                     emit({"phase": "widths", "failed": row})
                     raise AssertionError(f"a padded layer disagrees with its plain layer: {row}")
                 del got_f, got_b, want_f, want_b
-            for key, Hw in (("", H), ("padded_", Hp)):
-                work = train_layer_work(sum(E_parts), Hw, size, ny, G=G)
+            for key, Ew, Hw in (("", sum(E_parts), H), ("padded_", sum(Ep), Hp)):
+                work = train_layer_work(Ew, Hw, size, ny, G=G)
                 peak = kernel_peak(cd)
                 row[f"fwd_{key}bound_ms"], row[f"fwd_{key}bound_by"] = bound(
                     [(*work["fwd"], peak)])
@@ -1480,16 +1557,101 @@ def padded_layer_timings(dev) -> list:
     return out
 
 
+def wide_288_kernels(dev) -> dict:
+    """The CUDA-core wide forward (both variants) and lite sweep at H = 288,
+    their 288-thread instances, at their main path's shapes: layer 0 of the
+    bf16 two-layer model at embedding 272 (E = 272, run at H = 288, 5
+    weight groups, two dy streams a direction, 400 rows, T = 1500), its
+    input gates from ``bilstm_gates_mma``. Each held against its plain twin
+    with the main path's lengths, then timed at full lengths beside the
+    twin (timed once, in the check), its bound at the bf16 rate at H = 288
+    (the kernel's own work) and at the true 272, and cuDNN's one-layer bf16
+    training forward, inference forward and backward for the input at
+    E = H = 272, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
+
+    cd, E, H, G, ny = torch.bfloat16, 272, 272, G_TRAIN, 2
+    Hp = L.padded_width([E], H, cd)
+    picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
+    if picked != (288, "bilstm_fwd_wide", "bilstm_bwd_lite"):
+        raise AssertionError(f"embedding 272's layer 0 in bf16 runs {picked}")
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
+             "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    out = {k: {"kernel": name, **shape} for k, name in (
+        ("fwd", "bilstm_fwd_wide (train)"), ("fwd_eval", "bilstm_fwd_wide (eval)"),
+        ("lite", "bilstm_bwd_lite"))}
+    for full in (False, True):
+        parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+            [E], Hp, G, cd, dev, SEED + 50, full_lengths=full, ny=ny)
+        xg = L.bilstm_gates(parts, w_ih, bias, cd)
+        calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                 "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
+        hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+        calls["lite"] = lambda: L.bilstm_bwd_lite(*args)
+        if full:
+            for k, call in calls.items():
+                out[k]["ms"] = time_ms(call, 3)
+        else:
+            want, out["fwd"]["plain_ms"] = timed_once(
+                lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
+            _, out["fwd_eval"]["plain_ms"] = timed_once(
+                lambda: bidir_recurrence(xg, lengths, w_hh, cd))
+            ref, out["lite"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
+            res = {"fwd": {n: rel_err(a, b, TOL[cd])
+                           for n, a, b in zip(names, calls["fwd"](), want)},
+                   "fwd_eval": {n: rel_err(a, b, TOL[cd])
+                                for n, a, b in zip(names, calls["fwd_eval"](), want)},
+                   "lite": {"dgates": rel_err(calls["lite"](), ref, TOL[cd])}}
+            torch.cuda.synchronize()
+            for k, r in res.items():
+                out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
+                if not all(ok for _, ok in r.values()):
+                    emit({"phase": "widths", "failed": out[k]})
+                    raise AssertionError(f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
+            del want, ref, res
+        del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls
+    for key, Hw in (("", Hp), ("true_", H)):
+        work = wide_layer_work(E, Hw, G, 2, ny)
+        for k in out:
+            out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
+                [(*work[k], kernel_peak(cd))])
+    lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
+    for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
+                   ("lite", "cudnn_bwd_data_ms")):
+        out[k]["library_ms"] = lib[key]
+    return out
+
+
 def phase_widths(dev) -> dict:
     """The widths the JAX package's kernels take and the port's kernels did
-    not, on the card: ``padded_layer_timings``; then for each of
-    ``WIDTH_STEPS`` one gradient step and an eval step of the two-layer
-    model (8 pairs, T = 64, dropout 0) on the card against the CPU plain
-    path, in f32 and bf16, the listed kernels launched (on the recurrence
-    backend with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``)."""
+    not, on the card: ``padded_layer_timings``; the two-layer model at
+    embedding 100 at the train shape (80 pairs, T = 1500, dropout on, 2
+    steps and an eval step) in f32 and bf16 and one at embedding 272 in
+    bf16 (its steps timed), each with the kernels it launched;
+    ``wide_288_kernels``; then for each of ``WIDTH_STEPS`` one gradient
+    step and an eval step of the two-layer model (8 pairs, T = 64, dropout
+    0) on the card against the CPU plain path, in f32 and bf16, the listed
+    kernels launched (on the recurrence backend with
+    ``ops.lstm.DEFAULT_BACKEND = "recurrence"``)."""
     from intrepppid_tpu_torch.ops import lstm
 
     layers = padded_layer_timings(dev)
+    rng = np.random.default_rng(SEED + 7)
+    batches = [quintuplet_batch(rng, PAIRS_TRAIN, T_TRAIN) for _ in range(2)]
+    resident = tuple(n for n in train_counters()
+                     if n.startswith(("bilstm_layer_fwd", "bilstm_bwd")) and "lite" not in n)
+    models = {}
+    for key, dtype, width, expect in (("embedding_100_float32", torch.float32, 100, WIDE_F32),
+                                      ("embedding_100_bfloat16", torch.bfloat16, 100, WIDE_BF16),
+                                      ("embedding_272_bfloat16", torch.bfloat16, 272,
+                                       WIDE_288_BF16)):
+        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + ("bilstm_wgrad",)) - set(expect)
+        models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
+                                eval_step=True, dtype=dtype, embedding_size=width)
+    kernels_288 = wide_288_kernels(dev)
     steps = []
     for backend, width, dtype, expect in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -1499,7 +1661,8 @@ def phase_widths(dev) -> dict:
         finally:
             lstm.DEFAULT_BACKEND = "auto"
         steps.append({"backend": backend, **check})
-    out = {"phase": "widths", "padded_layers": layers, "grad_checks": steps}
+    out = {"phase": "widths", "padded_layers": layers, "models": models,
+           "kernels_288": kernels_288, "grad_checks": steps}
     emit(out)
     return out
 
@@ -2218,6 +2381,81 @@ def cluster_sweep_h128(dev, H=128) -> dict:
     return out
 
 
+def recurrence_past_288(dev) -> dict:
+    """The recurrence op's kernels past the 256 units they once stopped at:
+    H = 288 (the cluster kernels' 288-thread instance) and 512 and 1024 (the
+    global-weight instance, its slices read from an L2-resident copy), D =
+    2, 16 rows in 2 weight groups, T = 64, masks from lengths, f32 and
+    bf16: the forward, the sweep and the weight gradient against their plain
+    twins (``checks``). Then one call of each at H = 512, 400 rows in 5
+    groups, T = 300, full-length masks, timed beside its plain twin (timed
+    once, in the check), its bound (f32 CUDA cores; the bf16 wgrad at the
+    bf16 rate) and cuDNN's one-layer bidirectional LSTM at that width in
+    the same dtype, TF32 off (``h512``)."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import (
+        recurrence_fwd,
+        recurrence_sweep,
+        recurrence_wgrad,
+    )
+
+    checks, h512 = [], {}
+    for H in (288, 512, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL[dtype]
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(64, H, 2, dtype, dev, "lengths",
+                                                            SEED + H, B=16)
+            ref = recurrence_fwd(xg, valid, w, 2, dtype)
+            res = {n: rel_err(a, b, tol) for n, a, b in zip(
+                ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd(xg, valid, w, 2, dtype), ref)}
+            args = (xg, valid, w, ref[0], ref[1], dhs, dhn, dcn, 2, dtype)
+            dxg = recurrence_sweep(*args)
+            res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
+            res["dw"] = rel_err(L.lstm_recurrence_wgrad(ref[0], dxg, 2, dtype),
+                                recurrence_wgrad(ref[0], dxg, 2, dtype), tol)
+            torch.cuda.synchronize()
+            check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": "lengths",
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "sweep": L.recurrence_sweep_kernel(H, dtype),
+                     "wgrad": L.recurrence_wgrad_kernel(H, dtype),
+                     "global_weights": H > L.WIDE_MAX_THREADS,
+                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{tol} x max(1, max|ref|)"}
+            checks.append(check)
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "recurrence_kernel", "failed": check})
+                raise AssertionError(f"the recurrence op past 288 disagrees: {check}")
+            del xg, valid, w, dhs, ref, args, dxg
+    H, G, T = 512, G_TRAIN, 300
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.empty((), dtype=dtype).element_size()
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T, H, G, dtype, dev, "lengths",
+                                                        SEED + 95)
+        valid.fill_(True)
+        ref, fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G, dtype))
+        hs, cs = ref[:2]
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
+        dxg, bwd_plain_ms = timed_once(lambda: recurrence_sweep(*args))
+        _, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
+        t = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
+             "dtype": str(dtype).replace("torch.", ""),
+             "wgrad": L.recurrence_wgrad_kernel(H, dtype),
+             "max_abs_err": {"hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, G, dtype)[0],
+                                           hs, TOL[dtype])[0],
+                             "dxg": rel_err(L.lstm_recurrence_bwd(*args), dxg, TOL[dtype])[0]},
+             "fwd_ms": time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype), 3),
+             "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
+             "wgrad_ms": time_ms(lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
+             "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
+             "wgrad_plain_ms": wgrad_plain_ms}
+        add_bounds(t, recurrence_work(T, H, G, size), torch.float32,
+                   {"wgrad": kernel_peak(dtype)})
+        del xg, valid, w, dhs, ref, hs, cs, args, dxg
+        t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev, dtype=dtype)
+        h512[t["dtype"]] = t
+    return {"checks": checks, "h512": h512}
+
+
 def phase_recurrence_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
@@ -2323,6 +2561,7 @@ def phase_recurrence_kernel(dev) -> dict:
     ragged = ragged_recurrence_check(dev)
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
            "timings": timings, "cluster_h128": cluster_sweep_h128(dev),
+           "past_288": recurrence_past_288(dev),
            "max_active_clusters": cluster_counts,
            "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
                       "H = 64 and 32), which also does the input projection; cuBLAS for wgrad "
@@ -2396,6 +2635,14 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
+        # a one-layer model at embedding 320: the forward and the cluster
+        # sweep past 288, on their global-weight instance
+        grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
+            dev, dtype=dtype, eval_step=True, expect=(
+                "lstm_recurrence_fwd", "lstm_recurrence_bwd", wgrad), embedding_size=320,
+            rnn_num_layers=1)
+            for dtype, wgrad in ((torch.float32, "lstm_recurrence_wgrad"),
+                                 (torch.bfloat16, "lstm_recurrence_wgrad_mma"))}
     finally:
         lstm.DEFAULT_BACKEND = "auto"
     median = float(np.median(step_ms))
@@ -2406,7 +2653,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
            "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
            "float32_steps_embedding_128": f32_cluster, "grad_check": grad_check,
-           "grad_check_bf16": grad_check_bf16}
+           "grad_check_bf16": grad_check_bf16, "grad_check_embedding_320": grad_check_320}
     emit(out)
     return out
 
@@ -2515,7 +2762,7 @@ def main() -> int:
     serve = run(phase_serve, dev)
     tk = run(phase_train_kernel, dev)
     train = run(phase_train, dev)
-    run(phase_widths, dev)
+    widths = run(phase_widths, dev)
     wk = run(phase_wide_kernel, dev)
     scaled = run(phase_train_scaled, dev)
     rk = run(phase_recurrence_kernel, dev)
@@ -2701,6 +2948,15 @@ def main() -> int:
                               "bilstm_bwd.cu by name on the same operands (new, old, old, new), "
                               "its bound cuda_core_bound_ms at 67 TFLOP/s; max_abs_err also over "
                               "the ragged cases (27 rows, 3 groups, T = 1 and 5)")
+        elif key == "wgrad":
+            # bf16 at embedding 80 takes bilstm_wgrad_mma; this kernel there by name
+            o = e80[other][key]
+            entry.update({"bfloat16_by_name_ms": o["cuda_core_ms"],
+                          "bfloat16_by_name_max_abs_err": max(
+                              v for n, v in o["max_abs_err"].items()
+                              if n.startswith("cuda_core_"))})
+            entry["work"] += ("; bfloat16_by_name_*: this kernel asked for by name on the bf16 "
+                              "layer's operands, in turns with bilstm_wgrad_mma")
         else:
             # the same kernel in the other dtype, at the same shapes
             o = e80[other][key] if key != "bwd" else None
@@ -2769,6 +3025,20 @@ def main() -> int:
                           for k in ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms",
                                     "bound_by")})
             entry["h256_launches"] = scaled["launches"][name]
+            # layer 0 of the bf16 model at embedding 80 (H = 80: the masked gate tile)
+            h80 = e80["bfloat16"]["wgrad"]
+            entry.update({f"h80_{k}": h80[k] for k in (
+                "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
+                "library_ms", "scaled_err")})
+            entry.update({"h80_bound_ms": h80["wgrad_bound_ms"],
+                          "h80_bound_by": h80["wgrad_bound_by"],
+                          "h80_launches": e80_launches["bfloat16"][name],
+                          "h80_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
+                                                 if not n.startswith("cuda_core_"))})
+            entry["work"] += ("; h80_*: layer 0 of the bf16 two-layer model at embedding 80 "
+                              "(E=H=80, 5 groups), its launches in that model's steps, "
+                              "cuda_core_ms: bilstm_wgrad.cu by name in turns, library: "
+                              "cuBLAS bf16 products")
         kernels.append(entry)
     wide_errs = {
         "gates": ("xg",),
@@ -2807,6 +3077,18 @@ def main() -> int:
         entry["work"] += ("; launches: the f32 gradient step at the scaled widths and the eval "
                           "step after it; bf16_cuda_core_ms: this kernel on the bf16 operands "
                           "of the tensor-core one's row, by name")
+        if key != "gates":
+            # the 288-thread instance: layer 0 of the bf16 model at embedding 272
+            k288 = widths["kernels_288"][key]
+            entry.update({f"h288_{k}": k288[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
+            entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
+            entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
+            entry["work"] += ("; h288_*: its 288-thread instance on layer 0 of the bf16 "
+                              "two-layer model at embedding 272 (E=272, run at H=288), bf16, "
+                              "400 rows, T=1500, bound at H=288 (true_bound_ms at 272), "
+                              "launches in that model's steps, library: cuDNN one-layer bf16 "
+                              "at E=H=272")
         kernels.append(entry)
     # the tensor-core gates, wide forward (both variants) and lite sweep: the
     # bf16 scaled step and its eval step; each error name the checks give
@@ -2889,6 +3171,23 @@ def main() -> int:
                     "D=2, 400 rows, T=1500, H=64; library: cuDNN nn.LSTM layers, which also "
                     "do the input projection (cuBLAS for wgrad)",
         }
+        past = rk["past_288"]
+        if key != "bwd":
+            # past 288 (the global-weight instance): one call at H = 512, f32
+            h512 = past["h512"]["float32"]
+            entry.update({f"h512_{k}": h512[f"{key}_{k}"]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+            entry["h512_library_ms"] = h512.get(f"{key}_library_ms")
+            entry["h512_max_abs_err"] = max(
+                v for c in past["checks"] if c["dtype"] == "float32"
+                for n, v in c["max_abs_err"].items() if n in rec_errs[key])
+            entry["work"] += ("; h512_*: one call at H=512 (400 rows, 5 groups, T=300), f32, "
+                              "library: cuDNN one bidirectional nn.LSTM layer at that width; "
+                              "h512_max_abs_err over H=288, 512 and 1024")
+            if key == "fwd":
+                entry["h320_launches"] = rpath["grad_check_embedding_320"]["bfloat16"][
+                    "launches"][name]
+                entry["work"] += "; h320_launches: the bf16 model at embedding 320, one layer"
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
                           "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
@@ -2913,9 +3212,18 @@ def main() -> int:
         "bound_ms": c128["bwd_bound_ms"],
         "bound_by": c128["bwd_bound_by"],
         "library_ms": c128["library_ms"],
+        **{f"h512_{k}": rk["past_288"]["h512"]["float32"][f"bwd_{k}"]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "h512_bf16_ms": rk["past_288"]["h512"]["bfloat16"]["bwd_ms"],
+        "h512_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]),
+        "h320_launches": rpath["grad_check_embedding_320"]["bfloat16"]["launches"][
+            "lstm_recurrence_bwd"],
         "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
                 "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
-                "one-layer nn.LSTM backward (input), with the projection's dx",
+                "one-layer nn.LSTM backward (input), with the projection's dx; h512_*: its "
+                "global-weight instance, one call at H=512 (400 rows, 5 groups, T=300), f32 "
+                "(h512_bf16_ms: bf16 compute dtype), max_abs_err over H=288, 512 and 1024 in "
+                "both dtypes; h320_launches: the bf16 model at embedding 320, one layer",
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]

@@ -51,8 +51,12 @@
 // c_prev and dy are loaded into registers while the current step computes.
 // bf16 at H = 128 and 256 takes bilstm_bwd_lite_mma.cu (the same split
 // with both products on the tensor cores; ops/lstm_cuda.py:lite_kernel);
-// this kernel keeps f32 and the other bf16 widths. Not yet done: f32 on
-// the tensor cores.
+// this kernel keeps f32 and the other bf16 widths. Up to H = 256 it runs
+// in blocks instantiated for 256 threads (255 registers a thread); H = 257
+// to 288 takes a second instance for 288-thread blocks (224 registers),
+// whose padded slice (167 KB at 288), h tile and gate tile still fit
+// shared memory at 2 and 4 rows a thread. Not yet done: f32 on the tensor
+// cores.
 
 #include <cooperative_groups.h>
 
@@ -73,9 +77,9 @@ struct Streams2 {
 };
 
 // grid (tiles * kWideCluster, 2) in clusters of kWideCluster, block H
-// threads; row tile BR = kWideCluster * R.
-template <int R, typename T>
-__global__ void __launch_bounds__(kWideMaxThreads, 1)
+// threads (H <= kThreads); row tile BR = kWideCluster * R.
+template <int R, typename T, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
 bilstm_bwd_lite_kernel(const float* __restrict__ xg, const int* __restrict__ lengths,
                        const T* __restrict__ w_hh, const T* __restrict__ hs_f,
                        const T* __restrict__ hs_b, const T* __restrict__ cs_f,
@@ -282,10 +286,10 @@ int bilstm_bwd_lite(int dtype, int rows_per_thread, const void* xg, const void* 
                     int T_steps, int B, int H, int G, int tiles, int smem, void* stream,
                     int* max_clusters) {
   const Streams2 dy{{dyf0, dyf1}, {dyb0, dyb1}, ny};
-  return dispatch_wide(dtype, rows_per_thread, [&](auto r, auto t) -> int {
+  return dispatch_wide(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
-    return launch_wide(bilstm_bwd_lite_kernel<decltype(r)::value, T>, tiles, H, smem,
-                       static_cast<cudaStream_t>(stream), max_clusters,
+    return launch_wide(bilstm_bwd_lite_kernel<decltype(r)::value, T, decltype(n)::value>, tiles, H,
+                       smem, static_cast<cudaStream_t>(stream), max_clusters,
                        static_cast<const float*>(xg), static_cast<const int*>(lengths),
                        static_cast<const T*>(w_hh), static_cast<const T*>(hs_f),
                        static_cast<const T*>(hs_b), static_cast<const T*>(cs_f),

@@ -130,21 +130,41 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
 // lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu) split one row tile's
 // hidden units over a cluster of kWideCluster blocks of H threads
 // (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
-// of kWideRows.
+// of kWideRows. Each kernel is instantiated for blocks of at most
+// kWideSmallThreads threads (H <= 256: the register budget of 255 a thread
+// it had before wider blocks) and of at most kWideMaxThreads (H = 257 to
+// 288: 224 registers a thread); the recurrence kernels also for blocks of
+// at most kRecMaxH threads (H = 289 to 1024: 64 registers a thread), whose
+// weight slice no longer fits shared memory beside the h tile and is read
+// from a copy in global memory (L2) instead.
 constexpr int kWideCluster = 8;
-constexpr int kWideMaxThreads = 256;
+constexpr int kWideSmallThreads = 256;
+constexpr int kWideMaxThreads = 288;
+constexpr int kRecMaxH = 1024;
 constexpr int kWideRowsMask = (1 << 2) | (1 << 4) | (1 << 7) | (1 << 10);
 
-// Call f(std::integral_constant<int, R>, T{}) for dtype code (0: float, 1:
-// bfloat16) and R in kWideRows; cudaErrorInvalidValue for anything else.
-template <typename F>
-int dispatch_wide(int dtype, int rows, F&& f) {
+// Call f(std::integral_constant<int, R>, T{}, std::integral_constant<int,
+// kThreads>) for dtype code (0: float, 1: bfloat16), R in kWideRows and the
+// block instance kThreads that takes H threads: kWideSmallThreads,
+// kWideMaxThreads, or (with kGlobal, the recurrence kernels) kRecMaxH;
+// cudaErrorInvalidValue for anything else.
+template <bool kGlobal = false, typename F>
+int dispatch_wide(int dtype, int rows, int H, F&& f) {
+  auto by_threads = [&](auto r, auto t) -> int {
+    if (H <= 0) return (int)cudaErrorInvalidValue;
+    if (H <= kWideSmallThreads) return f(r, t, std::integral_constant<int, kWideSmallThreads>{});
+    if (H <= kWideMaxThreads) return f(r, t, std::integral_constant<int, kWideMaxThreads>{});
+    if constexpr (kGlobal) {
+      if (H <= kRecMaxH) return f(r, t, std::integral_constant<int, kRecMaxH>{});
+    }
+    return (int)cudaErrorInvalidValue;
+  };
   auto by_rows = [&](auto t) -> int {
     switch (rows) {
-      case 2: return f(std::integral_constant<int, 2>{}, t);
-      case 4: return f(std::integral_constant<int, 4>{}, t);
-      case 7: return f(std::integral_constant<int, 7>{}, t);
-      case 10: return f(std::integral_constant<int, 10>{}, t);
+      case 2: return by_threads(std::integral_constant<int, 2>{}, t);
+      case 4: return by_threads(std::integral_constant<int, 4>{}, t);
+      case 7: return by_threads(std::integral_constant<int, 7>{}, t);
+      case 10: return by_threads(std::integral_constant<int, 10>{}, t);
       default: return (int)cudaErrorInvalidValue;
     }
   };

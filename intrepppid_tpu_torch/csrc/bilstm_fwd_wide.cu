@@ -46,7 +46,12 @@
 // does not fit beside the weights at the tile sizes that fill one wave).
 // Both are in bilstm_fwd_wide_mma.cu (bf16 at H = 128 and 256: one bf16
 // weight copy leaves room for two h tiles), which takes those shapes over;
-// this kernel keeps f32 and the other bf16 widths.
+// this kernel keeps f32 and the other bf16 widths. Up to H = 256 it runs
+// in blocks instantiated for 256 threads (255 registers a thread); H = 257
+// to 288 (the bf16 layers of JAX's lite plan past 256, padded to 288)
+// takes a second instance for 288-thread blocks (224 registers a thread),
+// whose slice (162 KB at 288) and h tile still fit shared memory at 2, 4
+// and 7 rows a thread.
 
 #include <cooperative_groups.h>
 
@@ -59,9 +64,10 @@ namespace {
 using namespace bilstm;
 
 // grid (tiles * kWideCluster, 2) in clusters of kWideCluster, block H
-// threads; row tile BR = kWideCluster * R. cs_f / cs_b null: eval variant.
-template <int R, typename T>
-__global__ void __launch_bounds__(kWideMaxThreads, 1)
+// threads (H <= kThreads); row tile BR = kWideCluster * R. cs_f / cs_b
+// null: eval variant.
+template <int R, typename T, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
 bilstm_fwd_wide_kernel(const float* __restrict__ xg, const int* __restrict__ lengths,
                        const T* __restrict__ w_hh, T* __restrict__ hs_f, T* __restrict__ hs_b,
                        T* __restrict__ cs_f, T* __restrict__ cs_b, float* __restrict__ hn,
@@ -192,10 +198,10 @@ int bilstm_fwd_wide(int dtype, int rows_per_thread, const void* xg, const void* 
                     const void* w_hh, void* hs_f, void* hs_b, void* cs_f, void* cs_b, void* hn,
                     void* cn, int T_steps, int B, int H, int G, int tiles, int smem,
                     void* stream, int* max_clusters) {
-  return dispatch_wide(dtype, rows_per_thread, [&](auto r, auto t) -> int {
+  return dispatch_wide(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
-    return launch_wide(bilstm_fwd_wide_kernel<decltype(r)::value, T>, tiles, H, smem,
-                       static_cast<cudaStream_t>(stream), max_clusters,
+    return launch_wide(bilstm_fwd_wide_kernel<decltype(r)::value, T, decltype(n)::value>, tiles, H,
+                       smem, static_cast<cudaStream_t>(stream), max_clusters,
                        static_cast<const float*>(xg), static_cast<const int*>(lengths),
                        static_cast<const T*>(w_hh), static_cast<T*>(hs_f),
                        static_cast<T*>(hs_b), static_cast<T*>(cs_f), static_cast<T*>(cs_b),

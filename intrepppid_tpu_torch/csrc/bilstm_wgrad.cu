@@ -36,10 +36,12 @@
 // blocks run); the wrapper sums the partials over the splits (and, for
 // dW_ih, over the groups).
 // Not yet done: tensor cores (mma / wgmma) and multi-stage copies. They
-// are in bilstm_wgrad_mma.cu (bf16, H % 32 == 0) and bilstm_wgrad_f32.cu
+// are in bilstm_wgrad_mma.cu (bf16, H % 8 == 0) and bilstm_wgrad_f32.cu
 // (f32, H % 32 == 0, three tf32 passes), which take those shapes over; this
-// kernel keeps the rest (f32 at other widths, e.g. H = 80, and the bf16
-// shapes the tensor-core kernel does not take).
+// kernel keeps f32 at the other widths, e.g. H = 80 (where the f32 kernel's
+// 128 x 128 tiles would do 384 x 256 of work for 320 x 160 of result), and
+// runs bf16 only when asked for by name, as the yardstick of the
+// tensor-core one.
 
 #include "bilstm_common.cuh"
 

@@ -1,8 +1,8 @@
 // Bidirectional LSTM layer weight gradients, bf16 compute dtype: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_wgrad.cu (which keeps f32), the weight-gradient
-// products inside the TPU kernels
+// Replaces, like bilstm_wgrad.cu (which keeps f32 at H % 32 != 0), the
+// weight-gradient products inside the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _bwd_kernel_packed (the dwih /
 //     dw accumulations at :719-735, reduced by reduce_packed_grads at :956),
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (:436; dW_hh of the
@@ -38,6 +38,15 @@
 //     K-tile. A block's rows are one contiguous range of its group's (t, b)
 //     rows (t-major, b in the group): a K-tile spans a few positions of one
 //     group and never two groups;
+//   * gate rows in 128-row M tiles, the last one masked where 4H is not a
+//     multiple of 128 (H % 32 != 0: H = 16, 48, 80, which padding reaches
+//     from many embeddings): cp.async zero-fills its dgc chunks past 4H
+//     (H % 8 == 0, so a chunk of 8 gates never straddles 4H), a warp whose
+//     64 rows lie wholly past 4H skips its products, and rows past 4H are
+//     not stored. At H = 80 (4H = 320 = 2.5 tiles) the third tile's upper
+//     warps idle: 384 rows of tiles for 320 of result, where 64-row tiles
+//     would cover 320 exactly but halve each block's reuse of the source
+//     tile;
 //   * split-K: block (tile, split, d * G + g) owns rows
 //     [rows * split / splits, rows * (split + 1) / splits) of the group and
 //     writes its f32 partial tile, empty ranges included, so every partial
@@ -74,7 +83,7 @@ struct Args {
 // grid (m tiles * n tiles, splits, 2 * G), block kThreads.
 __global__ void __launch_bounds__(kThreads, 2) bilstm_wgrad_mma_kernel(const Args a) {
   const int H4 = 4 * a.H, E = a.E0 + a.E1, Wtot = E + a.H;
-  const int mtiles = H4 / kTileM;
+  const int mtiles = (H4 + kTileM - 1) / kTileM;
   const int m0 = (blockIdx.x % mtiles) * kTileM;
   const int n0 = (blockIdx.x / mtiles) * kTileN;
   const int split = blockIdx.y, splits = gridDim.y;
@@ -108,6 +117,9 @@ __global__ void __launch_bounds__(kThreads, 2) bilstm_wgrad_mma_kernel(const Arg
     src = a.hs[d]; width = a.H; scol = col - E; shift = d ? 1 : -1;
   }
   const bf16* dg = a.dgc + (size_t)d * T * B * H4 + m0 + 8 * c;
+  const bool a_row = m0 + 8 * c < H4;  // this thread's dgc chunk holds gates below 4H
+  // whether this warp's 64 gate rows reach below 4H (warp-uniform)
+  const bool live = m0 + 64 * wm < H4;
   // each copied row's (t, b in the group) and its index in the group
   int t_of[2], b_of[2];
   long long n_of[2];
@@ -130,7 +142,8 @@ __global__ void __launch_bounds__(kThreads, 2) bilstm_wgrad_mma_kernel(const Arg
       const bool real = n_of[i] < n_end;
       const int t = t_of[i], b = brow0 + b_of[i];
       const uint32_t off = stage * kStageBytes + i * kHalfBytes;
-      cp_async16(a_dst + off, real ? dg + ((size_t)t * B + b) * H4 : a.dgc, real);
+      cp_async16(a_dst + off, real && a_row ? dg + ((size_t)t * B + b) * H4 : a.dgc,
+                 real && a_row);
       const int ts = t + shift;
       const bool ok = real && width > 0 && ts >= 0 && ts < T;
       cp_async16(b_dst + off, ok ? src + ((size_t)ts * B + b) * width + scol : a.dgc, ok);
@@ -170,6 +183,7 @@ __global__ void __launch_bounds__(kThreads, 2) bilstm_wgrad_mma_kernel(const Arg
     if (kt + kStages - 1 < nk) load_tile((kt + kStages - 1) % kStages);
     cp_async_commit();
     const uint32_t st = (kt % kStages) * kStageBytes;
+    if (!live) continue;
 #pragma unroll
     for (int ks = 0; ks < kTileK / 16; ++ks) {
       uint32_t bf[2][4];
@@ -199,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, 2) bilstm_wgrad_mma_kernel(const Arg
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + 64 * wm + 16 * i + q;
+      if (m >= H4) continue;  // 4H % 32 == 0: an m16 tile lies wholly below or past 4H
       *reinterpret_cast<float2*>(out + (size_t)m * Wtot + n) =
           make_float2(acc[i][j][0], acc[i][j][1]);
       *reinterpret_cast<float2*>(out + (size_t)(m + 8) * Wtot + n) =
@@ -223,13 +238,13 @@ const char* bilstm_wgrad_mma_error_string(int err) {
 
 // The compute dtype is bfloat16. dgc (2, T, B, 4H); x0 (T, B, E0); x1
 // (T, B, E1) or null with E1 = 0; hs_f / hs_b (T, B, H); partial (splits,
-// 2, G, 4H, E0 + E1 + H) f32, every element written. Needs H % 32 == 0,
+// 2, G, 4H, E0 + E1 + H) f32, every element written. Needs H % 8 == 0,
 // E0 > 0, E0 % 8 == E1 % 8 == 0, B % G == 0, T * B > 0.
 // Returns a cudaError_t (0 on success).
 int bilstm_wgrad_mma(const void* dgc, const void* x0, const void* x1, int E0, int E1,
                      const void* hs_f, const void* hs_b, void* partial, int T_steps, int B, int H,
                      int G, int splits, void* stream) {
-  if (H <= 0 || H % 32 || E0 <= 0 || E0 % 8 || E1 < 0 || E1 % 8 || (E1 > 0) != (x1 != nullptr) ||
+  if (H <= 0 || H % 8 || E0 <= 0 || E0 % 8 || E1 < 0 || E1 % 8 || (E1 > 0) != (x1 != nullptr) ||
       G <= 0 || B <= 0 || B % G || T_steps <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -241,7 +256,7 @@ int bilstm_wgrad_mma(const void* dgc, const void* x0, const void* x1, int E0, in
   a.partial = static_cast<float*>(partial);
   a.E0 = E0; a.E1 = E1; a.T = T_steps; a.B = B; a.H = H; a.G = G;
   const int ntiles = (E0 + E1 + H + kTileN - 1) / kTileN;
-  const dim3 grid((4 * H / kTileM) * ntiles, splits, 2 * G);
+  const dim3 grid(((4 * H + kTileM - 1) / kTileM) * ntiles, splits, 2 * G);
   constexpr int kSmem = 2 * kSmemHalf;
   cudaError_t err = cudaFuncSetAttribute(bilstm_wgrad_mma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);

@@ -33,6 +33,18 @@
 // bytes are loaded into registers while the current step computes. xg, hs
 // and cs are addressed in the op's own (T, D, B, .) layout: no transposed
 // copy. A tile never spans two weight groups (tile_row).
+// Widths: up to H = 256 blocks instantiated for 256 threads (255
+// registers a thread); H = 257 to 288 a second instance for 288-thread
+// blocks (224 registers), whose f32 slice (H^2 / 2 bytes: 162 KB at 288)
+// still fits shared memory beside the h tile. Past 288 it does not, so a
+// third instance, for blocks of up to kRecMaxH = 1024 threads (64
+// registers a thread), reads the slice from a copy in global memory that
+// the wrapper lays out as the shared one is laid out ([d][g][block][k]
+// [unit][gate], f32): each block's slice is contiguous and the 8 blocks of
+// a cluster read disjoint slices, so one (d, g) copy (16 MB at H = 1024)
+// stays in the 50 MB L2 while every cluster of that (d, g) reads it each
+// step. Only the h tile stays in shared memory. Blocks of H threads reach
+// CUDA's limit of 1024 there.
 // Not yet done: tensor cores; a resident (one block per tile) variant for
 // H <= 64, where the cluster barriers cost more than the products.
 
@@ -47,11 +59,13 @@ namespace {
 using namespace bilstm;
 
 // grid (tiles * kWideCluster, D) in clusters of kWideCluster, block H
-// threads; row tile BR = kWideCluster * R.
-template <int R, typename T>
-__global__ void __launch_bounds__(kWideMaxThreads, 1)
+// threads (H <= kThreads); row tile BR = kWideCluster * R. Past
+// kWideMaxThreads the weight slice is read from `wl`, the global copy.
+template <int R, typename T, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_fwd_kernel(const float* __restrict__ xg, const uint8_t* __restrict__ valid,
-                           const T* __restrict__ w, float* __restrict__ hs,
+                           const T* __restrict__ w, const float* __restrict__ wl,
+                           float* __restrict__ hs,
                            float* __restrict__ cs, float* __restrict__ hn,
                            float* __restrict__ cn, int T_steps, int B, int H, int G) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -70,15 +84,23 @@ lstm_recurrence_fwd_kernel(const float* __restrict__ xg, const uint8_t* __restri
   const int group = tile_row(tile, 0, BR, Bg) / Bg;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);  // [H][U][4]
-  float* h_s = w_s + (size_t)H * U4;             // [BR][H]
-
-  // this block's slice of w[d, group] (H, 4H): columns q * H + rank * U + u
-  const T* wd = w + ((size_t)d * G + group) * H * H4;
-  for (int idx = threadIdx.x; idx < H * U4; idx += blockDim.x) {
-    const int k = idx / U4, lc = idx - k * U4;
-    const int q = lc / U, u = lc - q * U;
-    w_s[((size_t)k * U + u) * 4 + q] = to_f32(wd[(size_t)k * H4 + q * H + rank * U + u]);
+  constexpr bool kGlobalW = kThreads > kWideMaxThreads;
+  const float* w_s;  // [H][U][4]: this block's slice of w[d, group]
+  float* h_s;        // [BR][H]
+  if constexpr (kGlobalW) {
+    w_s = wl + (((size_t)d * G + group) * kWideCluster + rank) * H * U4;
+    h_s = reinterpret_cast<float*>(smem);
+  } else {
+    // columns q * H + rank * U + u of w[d, group] (H, 4H), into shared memory
+    float* ws = reinterpret_cast<float*>(smem);
+    const T* wd = w + ((size_t)d * G + group) * H * H4;
+    for (int idx = threadIdx.x; idx < H * U4; idx += blockDim.x) {
+      const int k = idx / U4, lc = idx - k * U4;
+      const int q = lc / U, u = lc - q * U;
+      ws[((size_t)k * U + u) * 4 + q] = to_f32(wd[(size_t)k * H4 + q * H + rank * U + u]);
+    }
+    w_s = ws;
+    h_s = ws + (size_t)H * U4;
   }
   for (int idx = threadIdx.x; idx < BR * H; idx += blockDim.x) h_s[idx] = 0.0f;
 
@@ -167,6 +189,7 @@ extern "C" {
 
 int lstm_recurrence_fwd_cluster() { return kWideCluster; }
 int lstm_recurrence_fwd_max_threads() { return kWideMaxThreads; }
+int lstm_recurrence_fwd_max_h() { return kRecMaxH; }
 int lstm_recurrence_fwd_rows_mask() { return kWideRowsMask; }
 
 const char* lstm_recurrence_fwd_error_string(int err) {
@@ -175,21 +198,25 @@ const char* lstm_recurrence_fwd_error_string(int err) {
 
 // dtype 0: float32, 1: bfloat16 (the compute dtype: w's type and h's
 // rounding); rows_per_thread one of kWideRows; xg (T, D, B, 4H) f32; valid
-// (T, D, B) uint8; w (D, G, H, 4H) with B % G == 0; hs, cs (T, D, B, H) and
-// hn, cn (D, B, H) f32. H % 32 == 0, H <= kWideMaxThreads; `tiles` =
+// (T, D, B) uint8; w (D, G, H, 4H) with B % G == 0; wl, past
+// kWideMaxThreads, w in f32 laid out (D, G, kWideCluster, H, H / 8, 4)
+// (null otherwise); hs, cs (T, D, B, H) and hn, cn (D, B, H) f32.
+// H % 32 == 0, H <= kRecMaxH; `tiles` =
 // G * ceil((B / G) / (8 * rows_per_thread)). With max_clusters non-null,
 // nothing is launched: *max_clusters receives how many clusters of this
 // configuration the card holds at once. Returns a cudaError_t (0 on success).
 int lstm_recurrence_fwd(int dtype, int rows_per_thread, const void* xg, const void* valid,
-                        const void* w, void* hs, void* cs, void* hn, void* cn, int D,
-                        int T_steps, int B, int H, int G, int tiles, int smem, void* stream,
-                        int* max_clusters) {
-  return dispatch_wide(dtype, rows_per_thread, [&](auto r, auto t) -> int {
+                        const void* w, const void* wl, void* hs, void* cs, void* hn, void* cn,
+                        int D, int T_steps, int B, int H, int G, int tiles, int smem,
+                        void* stream, int* max_clusters) {
+  if (H > kWideMaxThreads && !max_clusters && !wl) return (int)cudaErrorInvalidValue;
+  return dispatch_wide<true>(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
-    return launch_wide_dirs(lstm_recurrence_fwd_kernel<decltype(r)::value, T>, tiles, D, H,
-                            smem, static_cast<cudaStream_t>(stream), max_clusters,
+    return launch_wide_dirs(lstm_recurrence_fwd_kernel<decltype(r)::value, T, decltype(n)::value>,
+                            tiles, D, H, smem, static_cast<cudaStream_t>(stream), max_clusters,
                             static_cast<const float*>(xg), static_cast<const uint8_t*>(valid),
-                            static_cast<const T*>(w), static_cast<float*>(hs),
+                            static_cast<const T*>(w), static_cast<const float*>(wl),
+                            static_cast<float*>(hs),
                             static_cast<float*>(cs), static_cast<float*>(hn),
                             static_cast<float*>(cn), T_steps, B, H, G);
   });

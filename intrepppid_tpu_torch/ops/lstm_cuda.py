@@ -2,10 +2,12 @@
 
 Each layer takes one of two routes, fixed by its shapes and dtype before
 any launch (``layer_route``), as the JAX package's ``pick_plan`` picks its
-packed, fused or lite kernels. A layer no route takes at its own width
-runs at ``padded_width``, each gate block grown by zero units
-(``pad_layer``; ``layer_fwd`` and ``layer_bwd`` pad and cut back), so every
-width the JAX kernels take (H <= 256, H % 16 == 0) has a route:
+packed, fused or lite kernels. A layer no route takes at its own widths
+runs at ``padded_width`` and ``padded_parts``: each gate block grown by
+zero units and each input part by zero columns (``pad_layer``;
+``layer_fwd`` and ``layer_bwd`` pad and cut back), the pair with the fewest
+extra multiply-adds that a route takes, so every layer of 1 <= H <= 288
+units has a route, every width the JAX kernels take (H <= 286) among them:
 
 * **resident** -- where one block's shared memory holds the layer's
   weights (a forward kernel and a sweep kernel take the shape):
@@ -65,9 +67,10 @@ width the JAX kernels take (H <= 256, H % 16 == 0) has a route:
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
   three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
-  ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 32 == 0: a split-K GEMM on the
-  tensor cores), ``bilstm_wgrad_f32`` launches ``csrc/bilstm_wgrad_f32.cu``
-  (f32, H % 32 == 0: the same GEMM in three tf32 passes), ``bilstm_wgrad``
+  ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 8 == 0: a split-K GEMM on the
+  tensor cores, its last 128-row gate tile masked where H % 32 != 0),
+  ``bilstm_wgrad_f32`` launches ``csrc/bilstm_wgrad_f32.cu`` (f32,
+  H % 32 == 0: the same GEMM in three tf32 passes), ``bilstm_wgrad``
   itself launches ``csrc/bilstm_wgrad.cu`` for the rest (f32 at other
   widths, CUDA cores). Plain twin of all three:
   ``ops/lstm.py:bidir_layer_wgrad``.
@@ -75,9 +78,11 @@ width the JAX kernels take (H <= 256, H % 16 == 0) has a route:
 Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
-``recurrence_width``, padded) has kernels of its own: three on the wide
-route's cluster design at every width they take, and two tensor-core
-ones:
+``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
+of its own: three on the wide route's cluster design at every width they
+take (past 288 the forward and the cluster sweep read their weight slices
+from an L2-resident global copy, ``recurrence_global_weights``), and two
+tensor-core ones:
 
 * ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
   (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
@@ -118,6 +123,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 from fractions import Fraction
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -149,7 +155,7 @@ SMEM_LIMIT = 232448
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
 # bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
-# (kWideCluster, kWideMaxThreads, kWideRowsMask), bilstm_bwd_lite.cu and
+# (kWideCluster, kWideMaxThreads, kRecMaxH, kWideRowsMask), bilstm_bwd_lite.cu and
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
@@ -168,7 +174,10 @@ ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
 GATES_TILE_N, GATES_TILE_K = 128, 16
-WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD = 8, 256, 4
+# the wide kernels' blocks hold H threads, one per unit: at most 288 (a
+# second instance past 256); the recurrence kernels' up to REC_MAX_H, past
+# 288 with their weight slices in global memory
+WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
@@ -225,9 +234,11 @@ WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
-# a layer no route takes at its own H runs at a multiple of this
-# (``padded_width``): the tensor-core kernels' 16-unit groups
-PAD_STEP = 16
+# a layer no route takes at its own widths runs at H or a multiple of
+# PAD_STEP (``padded_width``: the tensor-core kernels' 16-unit groups), each
+# input part at its width or a multiple of PART_STEP (``padded_parts``: the
+# kernels' 16-byte bf16 chunks)
+PAD_STEP, PART_STEP = 16, 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -250,8 +261,8 @@ _SIGNATURES = {
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
-    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
-    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 8 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 10 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
@@ -312,11 +323,13 @@ _CONSTANTS = {
                              "bilstm_bwd_lite_mma_pad", "bilstm_bwd_lite_mma_xg_pad"),
                             (WIDE_CLUSTER, LITE_MMA_THREADS, MMA_PAD, LITE_MMA_XG_PAD)),
     "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
-                             "lstm_recurrence_fwd_rows_mask"),
-                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
+                             "lstm_recurrence_fwd_rows_mask", "lstm_recurrence_fwd_max_h"),
+                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, REC_MAX_H)),
     "lstm_recurrence_bwd": (("lstm_recurrence_bwd_cluster", "lstm_recurrence_bwd_max_threads",
-                             "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad"),
-                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+                             "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad",
+                             "lstm_recurrence_bwd_max_h"),
+                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD,
+                             REC_MAX_H)),
     "lstm_recurrence_bwd_mma": (("lstm_recurrence_bwd_mma_tile",
                                  "lstm_recurrence_bwd_mma_stages",
                                  "lstm_recurrence_bwd_mma_max_chunks",
@@ -674,37 +687,39 @@ def wgrad_check(E_parts: Sequence[int], H: int) -> None:
         )
 
 
-def _tensor_core_wgrad_check(name, takes, E_parts, H, dtype) -> None:
-    if (dtype != takes or H <= 0 or H % 32 or len(E_parts) not in (1, 2)
+def _tensor_core_wgrad_check(name, takes, unit, E_parts, H, dtype) -> None:
+    if (dtype != takes or H <= 0 or H % unit or len(E_parts) not in (1, 2)
             or any(e <= 0 or e % 8 for e in E_parts)):
         raise ValueError(
-            f"{name} kernel takes {str(takes).replace('torch.', '')} with H % 32 == 0 and 1 or "
-            f"2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
+            f"{name} kernel takes {str(takes).replace('torch.', '')} with H % {unit} == 0 and 1 "
+            f"or 2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
             f"E_parts={list(E_parts)}")
 
 
 def wgrad_mma_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or shape the tensor-core weight-gradient
     kernel (``csrc/bilstm_wgrad_mma.cu``) does not take: it takes bfloat16
-    with H % 32 == 0 (4H whole 128-row tiles) and 1 or 2 input parts that
-    are multiples of 8 wide."""
-    _tensor_core_wgrad_check("bilstm_wgrad_mma", torch.bfloat16, E_parts, H, dtype)
+    with H % 8 == 0 (its last 128-row gate tile masked where 4H is not a
+    multiple of 128) and 1 or 2 input parts that are multiples of 8 wide."""
+    _tensor_core_wgrad_check("bilstm_wgrad_mma", torch.bfloat16, 8, E_parts, H, dtype)
 
 
 def wgrad_f32_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or shape the f32 tensor-core weight-gradient
     kernel (``csrc/bilstm_wgrad_f32.cu``) does not take: it takes float32
-    with the shapes of the bf16 one (``wgrad_mma_check``)."""
-    _tensor_core_wgrad_check("bilstm_wgrad_f32", torch.float32, E_parts, H, dtype)
+    with H % 32 == 0 (whole 128-row gate tiles: at H = 80 its 128 x 128
+    tiles would do about twice the result's work, where ``bilstm_wgrad.cu``
+    is faster) and 1 or 2 input parts that are multiples of 8 wide."""
+    _tensor_core_wgrad_check("bilstm_wgrad_f32", torch.float32, 32, E_parts, H, dtype)
 
 
 def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel a layer's weight gradients take, by shape and dtype alone:
     ``"bilstm_wgrad_mma"`` where ``wgrad_mma_check`` passes (bf16,
-    H % 32 == 0), ``"bilstm_wgrad_f32"`` where ``wgrad_f32_check`` passes
-    (f32, the same shapes), else ``"bilstm_wgrad"`` where ``wgrad_check``
-    passes (the shapes the tensor-core kernels do not take); ValueError
-    naming the three refusals otherwise."""
+    H % 8 == 0), ``"bilstm_wgrad_f32"`` where ``wgrad_f32_check`` passes
+    (f32, H % 32 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check``
+    passes (the shapes the tensor-core kernels do not take: f32 at other
+    widths); ValueError naming the three refusals otherwise."""
     try:
         wgrad_mma_check(E_parts, H, dtype)
         return "bilstm_wgrad_mma"
@@ -723,11 +738,12 @@ def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
 def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
                    H: int) -> Tuple[int, int, int]:
     """``(m_tiles, n_tiles, splits)`` of the tensor-core wgrad launch (bf16
-    and f32: the same tiles): 128-row tiles of the 4H gates, 128-column
-    tiles of the E + H source columns, and the split of each group's
-    T * B / G rows that brings the grid to about ``WGRAD_TARGET_BLOCKS``
-    blocks, no more splits than K-tiles."""
-    m_tiles = 4 * H // WGRAD_MMA_TILE_M
+    and f32: the same tiles): 128-row tiles of the 4H gates (the last one
+    partly past 4H where H % 32 != 0), 128-column tiles of the E + H source
+    columns, and the split of each group's T * B / G rows that brings the
+    grid to about ``WGRAD_TARGET_BLOCKS`` blocks, no more splits than
+    K-tiles."""
+    m_tiles = -(-4 * H // WGRAD_MMA_TILE_M)
     n_tiles = -(-(sum(E_parts) + H) // WGRAD_MMA_TILE_N)
     rows = T * (B // G)
     per_split = m_tiles * n_tiles * 2 * G
@@ -784,54 +800,104 @@ def wide_check(H: int, E_parts: Optional[Sequence[int]] = None) -> None:
 
 
 def _route_at(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
-    """The route that takes the layer at exactly H units: ``"resident"``
+    """The route that takes the layer at exactly these widths: ``"resident"``
     where a resident forward and sweep take it (``fwd_kernel``,
     ``sweep_kernel``: the layer's weights in one block's shared memory),
-    else ``"wide"`` where ``wide_check`` passes; ValueError naming the
-    refusals otherwise."""
+    else ``"wide"`` where ``wide_check`` passes; either only where a
+    weight-gradient kernel takes it too (``wgrad_kernel``). ValueError
+    naming the refusals otherwise."""
     try:
         fwd_kernel(E_parts, H, dtype)
         sweep_kernel(E_parts, H, dtype)
-        return "resident"
+        route = "resident"
     except ValueError as resident:
         try:
             wide_check(H, E_parts)
         except ValueError as wide:
             raise ValueError(f"{resident}; {wide}") from None
-    return "wide"
+        route = "wide"
+    wgrad_kernel(E_parts, H, dtype)
+    return route
+
+
+def _padded_shapes(E_parts: Tuple[int, ...], H: int):
+    """Every ``(Hp, Ep)`` a layer may run at, in order of its multiply-adds
+    per row and step, ``Hp * (sum(Ep) + Hp)`` (on a tie the smaller Hp,
+    then the more even parts): Hp is H or a multiple of ``PAD_STEP`` past
+    it up to ``WIDE_MAX_THREADS``, each part of Ep its own width or a
+    multiple of ``PART_STEP`` past it (at most ``2 * WIDE_MAX_THREADS``
+    more). A best-first walk of that lattice: each step grows Hp or one
+    part to its next width."""
+    widths = [H] + list(range(H // PAD_STEP * PAD_STEP + PAD_STEP, WIDE_MAX_THREADS + 1,
+                              PAD_STEP))
+
+    def entry(at):
+        Hp = widths[at[0]]
+        Ep = tuple(e if i == 0 else (e // PART_STEP + i) * PART_STEP
+                   for e, i in zip(E_parts, at[1:]))
+        return (Hp * (sum(Ep) + Hp), Hp, max(Ep), Ep), at
+
+    heap, seen = [entry((0,) * (1 + len(E_parts)))], set()
+    while heap:
+        (_, Hp, _, Ep), at = heapq.heappop(heap)
+        yield Hp, Ep
+        for k in range(len(at)):
+            nxt = at[:k] + (at[k] + 1,) + at[k + 1:]
+            if nxt in seen or (k == 0 and nxt[0] >= len(widths)):
+                continue
+            seen.add(nxt)
+            key = entry(nxt)
+            if k > 0 and key[0][3][k - 1] > E_parts[k - 1] + 2 * WIDE_MAX_THREADS:
+                continue
+            heapq.heappush(heap, key)
 
 
 @functools.lru_cache(maxsize=None)
-def _layer_plan(E_parts: Tuple[int, ...], H: int, dtype: torch.dtype) -> Tuple[str, int]:
-    """``(route, width)`` of a layer (``padded_width``, ``layer_route``),
-    kept per shape: the plans are pure functions of the shapes, and every
-    layer call of a step asks again."""
+def _layer_plan(E_parts: Tuple[int, ...], H: int,
+                dtype: torch.dtype) -> Tuple[str, int, Tuple[int, ...]]:
+    """``(route, Hp, Ep)`` of a layer (``layer_route``, ``padded_width``,
+    ``padded_parts``): of the shapes ``_padded_shapes`` walks, the first a
+    route takes, so the one with the fewest extra multiply-adds. Kept per
+    shape: the plans are pure functions of the shapes, and every layer call
+    of a step asks again."""
     try:
-        return _route_at(E_parts, H, dtype), H
-    except ValueError as native:
-        for Hp in range(H // PAD_STEP * PAD_STEP + PAD_STEP, WIDE_MAX_THREADS + 1, PAD_STEP):
-            try:
-                return _route_at(E_parts, Hp, dtype), Hp
-            except ValueError:
-                pass
-        raise ValueError(f"no bilstm route takes this layer, at H={H} or padded up to "
-                         f"{WIDE_MAX_THREADS}: {native}") from None
+        return _route_at(E_parts, H, dtype), H, E_parts
+    except ValueError as e:
+        native = e
+    if not 1 <= H <= WIDE_MAX_THREADS or len(E_parts) not in (1, 2) or min(E_parts) <= 0:
+        raise ValueError(f"no bilstm route takes this layer, at H={H}, E_parts={list(E_parts)} "
+                         f"or padded (1 or 2 input parts and H <= {WIDE_MAX_THREADS}): "
+                         f"{native}")
+    for Hp, Ep in _padded_shapes(E_parts, H):
+        try:
+            return _route_at(Ep, Hp, dtype), Hp, Ep
+        except ValueError:
+            pass
+    raise ValueError(f"no bilstm route takes this layer, at H={H} or padded up to "
+                     f"{WIDE_MAX_THREADS}: {native}")
 
 
 def padded_width(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> int:
-    """The width a layer of H units runs at: H where a route takes it
-    (``_route_at``), else the least multiple of ``PAD_STEP`` past H, up to
-    ``WIDE_MAX_THREADS``, that one takes (``layer_fwd`` and ``layer_bwd``
-    then grow each gate block with zero units: ``pad_layer``). The input
-    parts keep their widths. ValueError where no width takes the layer."""
+    """The width a layer of H units runs at: H where a route takes the
+    layer at its own widths (``_route_at``), else that of the padded shape
+    with the fewest extra multiply-adds that a route takes (``_layer_plan``;
+    ``layer_fwd`` and ``layer_bwd`` then grow each gate block with zero
+    units and each input part with zero columns: ``pad_layer``). ValueError
+    where no shape takes the layer (H past ``WIDE_MAX_THREADS``)."""
     return _layer_plan(tuple(E_parts), H, dtype)[1]
 
 
+def padded_parts(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """The widths the layer's input parts run at, beside ``padded_width``:
+    each part's own width, or a multiple of ``PART_STEP`` past it."""
+    return _layer_plan(tuple(E_parts), H, dtype)[2]
+
+
 def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
-    """The route of a layer of H units: that of its ``padded_width``,
-    ``"resident"`` or ``"wide"`` (``_route_at``); ValueError for a shape no
-    width takes. Shapes and dtype alone decide it, for CPU and CUDA tensors
-    alike, before any launch."""
+    """The route of a layer of H units: that of its padded shape
+    (``padded_width``, ``padded_parts``), ``"resident"`` or ``"wide"``
+    (``_route_at``); ValueError for a shape none takes. Shapes and dtype
+    alone decide it, for CPU and CUDA tensors alike, before any launch."""
     return _layer_plan(tuple(E_parts), H, dtype)[0]
 
 
@@ -914,11 +980,12 @@ def _lite_mma_part_stride(rows: int) -> int:
 def wide_smem(kind: str, H: int, rows: int) -> int:
     """Dynamic shared memory of a wide kernel's block. ``kind`` "fwd" or
     "bwd" (the CUDA-core kernels, ``rows`` per thread): the f32 ``W_hh``
-    slice of its H/8 units, the tile's h (and, in the sweep, its rounded
-    gate cotangents). ``kind`` "lite_mma" (the tensor-core sweep, a row tile
-    of ``rows``): the bf16 slice and, per row, two h_prev buffers, the f32
-    xg slice, c_prev and two dy streams, the bf16 dgates tile, and two
-    buffers of the f32 partial dh of all H units. ``kind`` "fwd_mma" (the
+    slice of its H/8 units (up to ``WIDE_MAX_THREADS``), the tile's h (and,
+    in the sweep, its rounded gate cotangents). ``kind`` "lite_mma" (the
+    tensor-core sweep, a row tile of ``rows``): the bf16 slice and, per
+    row, two h_prev buffers, the f32 xg slice, c_prev and two dy streams,
+    the bf16 dgates tile, and two buffers of the f32 partial dh of all H
+    units. ``kind`` "fwd_mma" (the
     tensor-core forward, a row tile of ``rows``): the bf16 slice and, per
     row, two bf16 h tiles and the block's new h and c staged (both variants
     take the same, so they take the same tile)."""
@@ -932,9 +999,14 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
                 + BR * (4 * U + LITE_MMA_XG_PAD) * 4 + 3 * BR * U * 2
                 + BR * (4 * U + pad) * 2 + 2 * H * _lite_mma_part_stride(BR) * 4)
     BR = WIDE_CLUSTER * rows
+    w_slice = H * (4 * U + (WIDE_PAD if kind == "bwd" else 0)) * 4
+    if H > WIDE_MAX_THREADS:
+        # only the recurrence kernels run there, their weight slice read
+        # from global memory (``recurrence_global_weights``)
+        w_slice = 0
     if kind == "fwd":
-        return H * 4 * U * 4 + BR * H * 4
-    return H * (4 * U + WIDE_PAD) * 4 + BR * H * 4 + BR * 4 * U * 4
+        return w_slice + BR * H * 4
+    return w_slice + BR * H * 4 + BR * 4 * U * 4
 
 
 def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
@@ -974,7 +1046,7 @@ _cluster_counts: Dict[tuple, int] = {}
 _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
                 "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
-                "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1]}
+                "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
@@ -1713,7 +1785,7 @@ def bilstm_wgrad_mma(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer's weight gradients on the tensor cores
     (``csrc/bilstm_wgrad_mma.cu``); the contract of :func:`bilstm_wgrad`.
-    Takes the shapes ``wgrad_mma_check`` takes (bfloat16, H % 32 == 0) and
+    Takes the shapes ``wgrad_mma_check`` takes (bfloat16, H % 8 == 0) and
     raises for the rest. Every block writes its partial tile, an empty row
     range included, so the ``torch.empty`` partials are whole; an empty
     batch returns zeros. Its outputs carry no graph, so under grad mode it
@@ -2152,30 +2224,66 @@ def unpad_gate_rows(t: torch.Tensor, H: int, Hp: int, dim: int) -> torch.Tensor:
     return blocks.reshape(shape[:dim] + [4 * H] + shape[dim + 1:]).contiguous()
 
 
-def pad_layer(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, H: int, Hp: int):
-    """A layer's operands at Hp units: every gate block of ``w_ih (2, 4H,
-    E)``, ``w_hh (2, [G,] 4H, H)`` and ``bias (2, 4H)`` grown to Hp rows
-    and ``w_hh`` to Hp columns, all by zeros. A padded unit's pre-activation
-    is then exactly 0, so its c stays 0 (``sigmoid(0) * 0 + sigmoid(0) *
-    tanh(0)``) and its h is 0; the real units read it through zero
-    columns; in the backward its dh and dc are 0, so its gate cotangents
-    are 0 and add nothing to the real units' dh, dx or weight gradients."""
-    return (pad_gate_rows(w_ih, H, Hp, -2),
+def pad_parts(t: torch.Tensor, E_parts: Sequence[int], Ep: Sequence[int],
+              dim: int = -1) -> torch.Tensor:
+    """``t`` with its input columns along ``dim`` (the parts of
+    ``E_parts`` side by side) grown part by part to ``Ep``, each by zeros
+    at its own end."""
+    if tuple(E_parts) == tuple(Ep):
+        return t
+    pieces = torch.split(t, list(E_parts), dim)
+    return torch.cat([pad_units(q, e, ep, dim) for q, e, ep in zip(pieces, E_parts, Ep)], dim)
+
+
+def unpad_parts(t: torch.Tensor, E_parts: Sequence[int], Ep: Sequence[int],
+                dim: int = -1) -> torch.Tensor:
+    """The inverse of ``pad_parts``: the first E columns of each part of
+    ``Ep``, contiguous."""
+    if tuple(E_parts) == tuple(Ep):
+        return t
+    pieces = torch.split(t, list(Ep), dim)
+    return torch.cat([q.narrow(dim, 0, e) for q, e in zip(pieces, E_parts)], dim)
+
+
+def pad_layer(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, H: int, Hp: int,
+              E_parts: Sequence[int] = (), Ep: Sequence[int] = ()):
+    """A layer's operands at Hp units and input parts of ``Ep`` columns:
+    every gate block of ``w_ih (2, 4H, E)``, ``w_hh (2, [G,] 4H, H)`` and
+    ``bias (2, 4H)`` grown to Hp rows, ``w_hh`` to Hp columns and each
+    part's block of ``w_ih`` columns to its width in ``Ep``, all by zeros.
+    A padded unit's pre-activation is then exactly 0, so its c stays 0
+    (``sigmoid(0) * 0 + sigmoid(0) * tanh(0)``) and its h is 0; the real
+    units read it through zero columns; in the backward its dh and dc are
+    0, so its gate cotangents are 0 and add nothing to the real units' dh,
+    dx or weight gradients. A padded input column (zero in x, ``layer_fwd``
+    pads it so) meets a zero weight column, so it adds exactly 0 to every
+    gate; its dx and its ``dW_ih`` column belong to no real input and are
+    cut off (``layer_bwd``), and the real columns' products are the same
+    sums as without it."""
+    return (pad_parts(pad_gate_rows(w_ih, H, Hp, -2), E_parts, Ep),
             pad_units(pad_gate_rows(w_hh, H, Hp, -2), H, Hp, -1),
             pad_gate_rows(bias, H, Hp, -1))
 
 
+def _padded_layer(x_parts, w_ih, w_hh, bias, H, compute_dtype):
+    """``(route, Hp, Ep, x_parts, w_ih, w_hh, bias)`` of a layer at its
+    padded shape (``_layer_plan``), the x parts grown by zero columns."""
+    E_parts = tuple(p.shape[-1] for p in x_parts)
+    route, Hp, Ep = _layer_plan(E_parts, H, compute_dtype)
+    w_ih, w_hh, bias = pad_layer(w_ih, w_hh, bias, H, Hp, E_parts, Ep)
+    x_parts = tuple(pad_units(p, e, ep) for p, e, ep in zip(x_parts, E_parts, Ep))
+    return route, Hp, Ep, x_parts, w_ih, w_hh, bias
+
+
 def layer_fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states=False):
-    """One layer's forward on its route (``layer_route``) at its
-    ``padded_width``: the eval variant's ``(hs_f, hs_b, hn, cn)``, or with
-    ``with_states`` the train variant's, which adds ``(cs_f, cs_b)``. A
-    padded layer's outputs are cut back to its H units."""
-    x_parts = tuple(x_parts)
-    E_parts = [p.shape[-1] for p in x_parts]
+    """One layer's forward on its route (``layer_route``) at its padded
+    shape (``padded_width``, ``padded_parts``): the eval variant's
+    ``(hs_f, hs_b, hn, cn)``, or with ``with_states`` the train variant's,
+    which adds ``(cs_f, cs_b)``. A padded layer's outputs are cut back to
+    its H units."""
     H = w_hh.shape[-1]
-    Hp = padded_width(E_parts, H, compute_dtype)
-    route = layer_route(E_parts, Hp, compute_dtype)
-    w_ih, w_hh, bias = pad_layer(w_ih, w_hh, bias, H, Hp)
+    route, Hp, _, x_parts, w_ih, w_hh, bias = _padded_layer(
+        tuple(x_parts), w_ih, w_hh, bias, H, compute_dtype)
     if route == "resident":
         fwd = bilstm_layer_fwd_train if with_states else bilstm_layer_fwd
         outs = fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
@@ -2190,7 +2298,7 @@ def layer_fwd(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states=Fal
 
 def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
               dyf, dyb, dhn, dcn, compute_dtype):
-    """One layer's backward on its route at its ``padded_width``, with the
+    """One layer's backward on its route at its padded shape, with the
     contract of ``ops/lstm.py:bidir_layer_bwd``: ``(dxf, dxb, dW_ih (2, 4H,
     E), dW_hh (2, G, 4H, H), dbias (2, 4H))``, the weight gradients f32.
     The sweep is ``bilstm_bwd`` (resident) or, on the wide route, the input
@@ -2198,13 +2306,12 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
     same f32 bits), the lite sweep, and dx, ``dgc`` and ``dbias`` from
     ``ops/lstm.py:input_grads``; then ``bilstm_wgrad``. A padded layer's
     states and cotangents are grown back to Hp units by zeros (the padded
-    units' values: ``pad_layer``) and its gradients cut back to H."""
-    x_parts = tuple(x_parts)
-    E_parts = [p.shape[-1] for p in x_parts]
+    units' values: ``pad_layer``), and its dx parts, ``dW_ih`` columns and
+    gradients are cut back to the true widths."""
+    E_parts = tuple(p.shape[-1] for p in x_parts)
     H = hs_f.shape[-1]
-    Hp = padded_width(E_parts, H, compute_dtype)
-    route = layer_route(E_parts, Hp, compute_dtype)
-    w_ih, w_hh, bias = pad_layer(w_ih, w_hh, bias, H, Hp)
+    route, Hp, Ep, x_parts, w_ih, w_hh, bias = _padded_layer(
+        tuple(x_parts), w_ih, w_hh, bias, H, compute_dtype)
     hs_f, hs_b, cs_f, cs_b = (pad_units(t, H, Hp) for t in (hs_f, hs_b, cs_f, cs_b))
     dyf, dyb = (tuple(pad_units(t, H, Hp) for t in ts) for ts in (dyf, dyb))
     dhn, dcn = (None if t is None else pad_units(t, H, Hp) for t in (dhn, dcn))
@@ -2215,9 +2322,13 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
         dgates = bilstm_bwd_lite(bilstm_gates(x_parts, w_ih, bias, compute_dtype), lengths,
                                  w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
                                  compute_dtype)
-        dxf, dxb, dgc, dbias = input_grads(dgates, w_ih, E_parts)
+        dxf, dxb, dgc, dbias = input_grads(dgates, w_ih, Ep)
         del dgates
     dw_ih, dw_hh = bilstm_wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
+    if Ep != E_parts:
+        dxf, dxb = (tuple(t[..., :e].contiguous() for t, e in zip(ts, E_parts))
+                    for ts in (dxf, dxb))
+        dw_ih = unpad_parts(dw_ih, E_parts, Ep)
     if Hp != H:
         dw_ih = unpad_gate_rows(dw_ih, H, Hp, -2)
         dw_hh = unpad_gate_rows(dw_hh, H, Hp, -2)[..., :H].contiguous()
@@ -2229,17 +2340,24 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
 REC_MMA_WIDTHS = (32, 64)
 
 
-def recurrence_width(H: int, compute_dtype: torch.dtype) -> int:
-    """The width the recurrence kernels run an op of H units at: H where
+def recurrence_width(H: int, compute_dtype: torch.dtype, on_card: bool = True) -> int:
+    """The width the recurrence op of H units runs at: H where
     ``recurrence_check`` takes it, else the next multiple of 32 (at least
     32), each gate block of ``xg`` and ``w`` grown by zero units (the
     exactness argument of ``pad_layer``; ``FusedLSTMRecurrence`` pads and
-    cuts back). ValueError past ``WIDE_MAX_THREADS`` (the kernels' 8-block
-    clusters hold at most 32 units a block) or for a compute dtype they do
-    not take."""
-    if not 1 <= H <= WIDE_MAX_THREADS:
-        raise ValueError(f"the recurrence op takes 1 <= H <= {WIDE_MAX_THREADS} (its kernels "
-                         f"hold at most 32 units in each of 8 blocks), got H={H}")
+    cuts back). Past ``REC_MAX_H`` the card's kernels take no width
+    (ValueError with ``on_card``: one thread per unit, and a block holds at
+    most 1024), while the plain twins, which take any H as JAX's interpret
+    mode does, run the op unpadded. ValueError for H < 1 or a compute dtype
+    the kernels do not take."""
+    if H < 1:
+        raise ValueError(f"the recurrence op takes H >= 1, got H={H}")
+    if H > REC_MAX_H:
+        if on_card:
+            raise ValueError(f"the recurrence op takes H <= {REC_MAX_H} on the card (its "
+                             f"kernels run one thread per unit in each of 8 blocks of at most "
+                             f"1024), got H={H}")
+        return H
     Hp = max(32, -(-H // 32) * 32)
     recurrence_check(Hp, compute_dtype)
     return Hp
@@ -2248,9 +2366,9 @@ def recurrence_width(H: int, compute_dtype: torch.dtype) -> int:
 def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
     """ValueError for a width or compute dtype the recurrence kernels do
     not take."""
-    if compute_dtype not in _DTYPE_CODES or H % 32 or not 32 <= H <= WIDE_MAX_THREADS:
+    if compute_dtype not in _DTYPE_CODES or H % 32 or not 32 <= H <= REC_MAX_H:
         raise ValueError(
-            f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {WIDE_MAX_THREADS}}} "
+            f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {REC_MAX_H}}} "
             f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the weight "
             f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweeps "
             f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}, and "
@@ -2262,8 +2380,8 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     dtype alone: at H = 32 or 64 the tensor-core ones,
     ``"lstm_recurrence_bwd_mma"`` for bfloat16 and
     ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; the
-    cluster kernel ``"lstm_recurrence_bwd"`` for H = 96 to 256 in either
-    dtype; ValueError for what none takes."""
+    cluster kernel ``"lstm_recurrence_bwd"`` for H = 96 to ``REC_MAX_H``
+    in either dtype; ValueError for what none takes."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
@@ -2290,6 +2408,20 @@ def recurrence_f32_smem(H: int) -> int:
     xs, cs = 4 * H + REC_MMA_F32_PAD, H + REC_MMA_F32_PAD
     return 4 * (2 * 4 * H * ws + 2 * 2 * MMA_TILE * gs
                 + MMA_STAGES * MMA_TILE * (xs + ws + 2 * cs))
+
+
+def recurrence_global_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
+    """The copy of ``w (D, G, H, 4H)`` the cluster kernels read past
+    ``WIDE_MAX_THREADS`` units, where a block's f32 slice no longer fits
+    shared memory: f32, laid out as the shared slices are, ``(D, G,
+    WIDE_CLUSTER, H, H / 8, 4)`` ([d][g][block][k][unit][gate]), so each
+    block reads one contiguous slice; None at the widths whose slices stay
+    in shared memory."""
+    D, G, H, _ = w.shape
+    if H <= WIDE_MAX_THREADS:
+        return None
+    U = H // WIDE_CLUSTER
+    return w.float().reshape(D, G, H, 4, WIDE_CLUSTER, U).permute(0, 1, 4, 2, 5, 3).contiguous()
 
 
 def _recurrence_operands(xg, valid, w, G, cd, what):
@@ -2335,9 +2467,10 @@ def lstm_recurrence_fwd(
         return hs, cs, hn, cn
     name = "lstm_recurrence_fwd"
     R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    wl = recurrence_global_weights(w)
     with torch.cuda.device(dev):
         err = _kernels(name).lstm_recurrence_fwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(),
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), _opt_ptr(wl),
             hs.data_ptr(), cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles,
             smem, torch.cuda.current_stream(dev).cuda_stream, None,
         )
@@ -2396,9 +2529,10 @@ def lstm_recurrence_bwd(
     if B * D * T == 0:
         return dxg
     R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    wl = recurrence_global_weights(w)
     with torch.cuda.device(dev):
         err = _kernels(name).lstm_recurrence_bwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(),
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), _opt_ptr(wl),
             hs.data_ptr(), cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn),
             dxg.data_ptr(), D, T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,

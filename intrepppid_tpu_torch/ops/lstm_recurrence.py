@@ -175,7 +175,9 @@ class FusedLSTMRecurrence(torch.autograd.Function):
     backward and not returned. CPU tensors run the plain versions above,
     CUDA tensors the kernels (``ops/lstm_cuda.py``) or raise. Both run at
     ``lstm_cuda.recurrence_width(H)``: a width the kernels do not take is
-    padded with zero units, and what comes back is cut to H."""
+    padded with zero units, and what comes back is cut to H. Past the
+    card's widest (``REC_MAX_H``) a CUDA tensor raises and a CPU tensor
+    runs the plain versions unpadded."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):
@@ -183,7 +185,7 @@ class FusedLSTMRecurrence(torch.autograd.Function):
 
         ctx.set_materialize_grads(False)
         H = w.shape[-2]
-        Hp = recurrence_width(H, compute_dtype)
+        Hp = recurrence_width(H, compute_dtype, on_card=xg.is_cuda)
         xg_k, w_k = _padded(xg, w, H, Hp)
         hs, cs, hn, cn = lstm_recurrence_fwd(xg_k, valid, w_k, G, compute_dtype)
         ctx.save_for_backward(xg, valid, w, hs, cs)

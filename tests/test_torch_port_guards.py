@@ -96,6 +96,15 @@ def test_every_kernel_source_is_built_and_bound():
     assert '#include "bilstm_mma.cuh"' in text
     text = text.rsplit("#include", 1)[1]
     assert text.count("mma_bf16(") == 1 and "map_shared_rank(" in text and "launch_wide(" in text
+    # the CUDA-core cluster kernels dispatch each width to a block instance
+    # (256 threads, 288, and for the recurrence op up to 1024 threads with
+    # its weight slices read from the global copy)
+    for name in ("bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
+                 "lstm_recurrence_bwd"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        recurrence = name.startswith("lstm_")
+        assert ("dispatch_wide<true>(" in text) == recurrence, name
+        assert ("kGlobalW" in text) == recurrence and "__launch_bounds__(kThreads, 1)" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the

@@ -224,7 +224,8 @@ def test_wide_plan_fills_the_card_in_fewest_waves():
 
 
 @pytest.mark.parametrize("H,E_parts,ok", [(256, [256, 256], True), (128, [128], True),
-                                          (32, [32], True), (288, [288], False),
+                                          (32, [32], True), (288, [288], True),
+                                          (320, [320], False),
                                           (96, [96], True), (80, [80], False),
                                           (256, [200], False)])
 def test_wide_check(H, E_parts, ok):
@@ -408,7 +409,8 @@ def test_recurrence_wrappers_refuse_operands_that_require_grad():
 
 @pytest.mark.parametrize("H,dtype,ok", [(32, torch.float32, True), (64, torch.bfloat16, True),
                                         (256, torch.bfloat16, True), (8, torch.float32, False),
-                                        (288, torch.float32, False), (48, torch.float32, False),
+                                        (288, torch.float32, True), (1024, torch.float32, True),
+                                        (1056, torch.float32, False), (48, torch.float32, False),
                                         (64, torch.float16, False)])
 def test_recurrence_check(H, dtype, ok):
     if ok:
@@ -626,8 +628,11 @@ def test_fwd_mma_plan(H, E):
         ([256, 256], 256, torch.bfloat16, "bilstm_wgrad_mma"),
         ([64], 64, torch.float32, "bilstm_wgrad_f32"),  # f32: three tf32 passes
         ([256, 256], 256, torch.float32, "bilstm_wgrad_f32"),
-        ([16], 16, torch.bfloat16, "bilstm_wgrad"),    # 4H not whole 128-row tiles
-        ([64], 24, torch.bfloat16, None),
+        ([16], 16, torch.bfloat16, "bilstm_wgrad_mma"),  # 4H past whole 128-row tiles: masked
+        ([64], 24, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([80], 80, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([48, 48], 48, torch.bfloat16, "bilstm_wgrad_mma"),
+        ([64], 20, torch.bfloat16, None),              # H % 8 != 0
         ([32, 32], 32, torch.float32, "bilstm_wgrad_f32"),
         ([128], 128, torch.float32, "bilstm_wgrad_f32"),
         ([80], 80, torch.float32, "bilstm_wgrad"),     # H % 32 != 0 keeps the CUDA-core kernel
@@ -735,13 +740,22 @@ def _resident_before_f32(E_parts, H, dtype):
 
 
 def _route_and_width(E_parts, H, dtype):
-    """``(layer_route, padded_width)``, or ``(None, None)`` where no width
-    takes the layer."""
+    """``(layer_route, padded_width, padded_parts)``, or ``(None, None,
+    None)`` where no shape takes the layer."""
     try:
         return (lstm_cuda.layer_route(E_parts, H, dtype),
-                lstm_cuda.padded_width(E_parts, H, dtype))
+                lstm_cuda.padded_width(E_parts, H, dtype),
+                lstm_cuda.padded_parts(E_parts, H, dtype))
     except ValueError:
-        return None, None
+        return None, None, None
+
+
+def _has_wgrad(E_parts, H, dtype):
+    try:
+        lstm_cuda.wgrad_kernel(E_parts, H, dtype)
+        return True
+    except ValueError:
+        return False
 
 
 def test_f32_sweep_changes_no_route():
@@ -750,16 +764,20 @@ def test_f32_sweep_changes_no_route():
     take is resident at its own width now only where an f32 tensor-core
     sweep takes it (a tensor-core plan no longer waits on
     ``bwd_launch_plan``); the others keep their route or are padded
-    (``padded_width``). The f32 sweep takes each model shape in f32."""
+    (``padded_width``, ``padded_parts``). The f32 sweep takes each model
+    shape in f32. (A layer at its own widths also needs a weight-gradient
+    kernel, ``_route_at``.)"""
     for H in range(8, 272, 8):
         for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
             for dtype in (torch.float32, torch.bfloat16):
-                route, Hp = _route_and_width(E_parts, H, dtype)
-                resident = _resident_before_f32(E_parts, H, dtype)
+                route, Hp, Ep = _route_and_width(E_parts, H, dtype)
+                own = (route, Hp, Ep) == ("resident", H, tuple(E_parts))
+                resident = (_resident_before_f32(E_parts, H, dtype)
+                            and _has_wgrad(E_parts, H, dtype))
                 if resident:
-                    assert (route, Hp) == ("resident", H), (E_parts, H, dtype)
-                elif (route, Hp) == ("resident", H):
+                    assert own, (E_parts, H, dtype)
+                elif own:
                     assert lstm_cuda.sweep_kernel(E_parts, H, dtype) in (
                         "bilstm_bwd_f32", "bilstm_bwd_f32_onestage"), (E_parts, H, dtype)
                 if resident and dtype == torch.float32 and H <= 64 and H % 16 == 0:
@@ -950,12 +968,14 @@ def test_f32_forward_changes_no_route():
         for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
                         [32, 32], [48, 48], [64, 64], [128, 128], [256, 256]):
             for dtype in (torch.float32, torch.bfloat16):
-                route, Hp = _route_and_width(E_parts, H, dtype)
-                if _resident_before_f32_forward(E_parts, H, dtype):
-                    assert (route, Hp) == ("resident", H), (E_parts, H, dtype)
-                elif (route, Hp) == ("resident", H):
+                route, Hp, Ep = _route_and_width(E_parts, H, dtype)
+                own = (route, Hp, Ep) == ("resident", H, tuple(E_parts))
+                if (_resident_before_f32_forward(E_parts, H, dtype)
+                        and _has_wgrad(E_parts, H, dtype)):
+                    assert own, (E_parts, H, dtype)
+                elif own:
                     assert lstm_cuda.fwd_kernel(E_parts, H, dtype) == "bilstm_fwd_f32"
-                if (route, Hp) != ("resident", H):
+                if not own:
                     continue
                 kernel = lstm_cuda.fwd_kernel(E_parts, H, dtype)
                 if dtype == torch.bfloat16:
@@ -1044,7 +1064,9 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (96, torch.bfloat16, "bilstm_bwd_lite"),   # no whole 8-unit groups a block
         (32, torch.bfloat16, "bilstm_bwd_lite"),
         (80, torch.bfloat16, None),
-        (288, torch.float32, None),
+        (288, torch.float32, "bilstm_bwd_lite"),   # the 288-thread instance
+        (288, torch.bfloat16, "bilstm_bwd_lite"),
+        (320, torch.float32, None),
         (256, torch.float16, None),
     ],
 )
@@ -1057,11 +1079,13 @@ def test_lite_kernel_by_width_and_dtype(H, dtype, kernel):
 
 
 def _route_without_the_wide_dispatch(E_parts, H, dtype):
-    """``layer_route``'s rule, written out: at the layer's ``padded_width``
-    (None where none), resident where the resident forward and sweep
-    dispatches take the layer, else wide where ``wide_check`` passes."""
+    """``layer_route``'s rule, written out: at the layer's padded shape
+    (``padded_width``, ``padded_parts``; None where none), resident where
+    the resident forward and sweep dispatches take the layer, else wide
+    where ``wide_check`` passes."""
     try:
-        H = lstm_cuda.padded_width(E_parts, H, dtype)
+        E_parts, H = (lstm_cuda.padded_parts(E_parts, H, dtype),
+                      lstm_cuda.padded_width(E_parts, H, dtype))
     except ValueError:
         return None
     try:
@@ -1087,11 +1111,11 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
     for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
-            route, H = _route_and_width(E_parts, H0, dtype)
+            route, H, Ep = _route_and_width(E_parts, H0, dtype)
             assert route == _route_without_the_wide_dispatch(E_parts, H0, dtype), (E_parts, H0)
             if route != "wide":
                 continue
-            gates, lite = lstm_cuda.gates_kernel(E_parts, H, dtype), lstm_cuda.lite_kernel(H, dtype)
+            gates, lite = lstm_cuda.gates_kernel(Ep, H, dtype), lstm_cuda.lite_kernel(H, dtype)
             bf16 = dtype == torch.bfloat16
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates")
             assert lite == ("bilstm_bwd_lite_mma" if bf16 and H in (128, 256)
@@ -1167,7 +1191,9 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (96, torch.bfloat16, "bilstm_fwd_wide"),   # no whole 8-unit groups a block
         (32, torch.bfloat16, "bilstm_fwd_wide"),
         (80, torch.bfloat16, None),
-        (288, torch.float32, None),
+        (288, torch.float32, "bilstm_fwd_wide"),   # the 288-thread instance
+        (288, torch.bfloat16, "bilstm_fwd_wide"),
+        (320, torch.float32, None),
         (256, torch.float16, None),
     ],
 )
@@ -1187,27 +1213,25 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     keeps its route, every wide layer has a forward kernel (the tensor-core
     one in bf16 at H = 128 and 256), and every layer whose widths are whole
     128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
-    too); the others keep ``bilstm_wgrad.cu`` where it takes them. Each at
-    the layer's padded width."""
+    too), in bf16 every layer with H % 8 == 0 (the masked last gate tile);
+    the others keep ``bilstm_wgrad.cu``. Each at the layer's padded shape,
+    where every layer has a weight-gradient kernel."""
     bf16 = dtype == torch.bfloat16
     for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
-            route, H = _route_and_width(E_parts, H0, dtype)
+            route, H, Ep = _route_and_width(E_parts, H0, dtype)
             assert route == _route_without_the_wide_dispatch(E_parts, H0, dtype), (E_parts, H0)
             if route is None:
                 continue
             if route == "wide":
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
                     "bilstm_fwd_wide_mma" if bf16 and H in (128, 256) else "bilstm_fwd_wide")
-            try:
-                wgrad = lstm_cuda.wgrad_kernel(E_parts, H, dtype)
-            except ValueError:
-                wgrad = None
-            if H % 32 == 0:
+            wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
+            if H % 32 == 0 or (bf16 and H % 8 == 0):
                 assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
             else:
-                assert wgrad in ("bilstm_wgrad", None), (E_parts, H)
+                assert wgrad == "bilstm_wgrad", (E_parts, H)
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
 
@@ -2387,14 +2411,18 @@ def test_bwd_f32_onestage_edges_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E_parts,H,G", [([80, 80], 80, 1), ([112], 112, 5),
                                          ([112, 112], 112, 1), ([48, 48], 48, 1),
-                                         ([80], 80, 5), ([240], 240, 1)])
+                                         ([80], 80, 5), ([240], 240, 1), ([10], 10, 5),
+                                         ([50], 50, 5), ([100], 100, 5), ([100, 100], 100, 1),
+                                         ([272], 272, 5), ([272, 272], 272, 1)])
 def test_repaired_widths_match_the_cpu_on_card(cuda_device, dtype, E_parts, H, G):
-    """The layers the width repair opens, padded (``padded_width`` > H) or
-    taken natively (the f32 tensor-core sweep at E = 96, H = 48; the
-    one-stage sweep at E = H = 80), on the card: ``layer_fwd`` (train
-    variant) and ``layer_bwd`` against the CPU plain layer at the true H,
-    within 1e-4 x max(1, max|ref|) in f32 and 3e-2 in bf16, each launching
-    the kernels its route's pickers name at the padded width."""
+    """The layers the width repairs open, padded (``padded_width`` > H or
+    ``padded_parts`` past the parts: embedding 10, 50, 100, the bf16
+    stacked layer at 48; at 272 the 288-thread wide kernels) or taken
+    natively (the f32 tensor-core sweep at E = 96, H = 48; the one-stage
+    sweep at E = H = 80), on the card: ``layer_fwd`` (train variant) and
+    ``layer_bwd`` against the CPU plain layer at the true widths, within
+    1e-4 x max(1, max|ref|) in f32 and 3e-2 in bf16, each launching the
+    kernels its route's pickers name at the padded shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     T, B = 20, 30
     tol = 1e-4 if dtype == torch.float32 else 3e-2
@@ -2402,15 +2430,16 @@ def test_repaired_widths_match_the_cpu_on_card(cuda_device, dtype, E_parts, H, G
                                                                  cuda_device, seed=H)
     ny = 2 if len(E_parts) == 1 else 1
     Hp = lstm_cuda.padded_width(E_parts, H, dtype)
+    Ep = lstm_cuda.padded_parts(E_parts, H, dtype)
     if lstm_cuda.layer_route(E_parts, H, dtype) == "resident":
         names = {"bilstm_bwd_mma": lstm_cuda.bilstm_bwd_mma, "bilstm_bwd": lstm_cuda.bilstm_bwd,
                  "bilstm_bwd_f32": lstm_cuda.bilstm_bwd_f32,
                  "bilstm_bwd_f32_onestage": lstm_cuda.bilstm_bwd_f32_onestage}
-        ran = [names[lstm_cuda.sweep_kernel(E_parts, Hp, dtype)]]
+        ran = [names[lstm_cuda.sweep_kernel(Ep, Hp, dtype)]]
     else:
-        ran = [getattr(lstm_cuda, lstm_cuda.gates_kernel(E_parts, Hp, dtype)),
+        ran = [getattr(lstm_cuda, lstm_cuda.gates_kernel(Ep, Hp, dtype)),
                getattr(lstm_cuda, lstm_cuda.lite_kernel(Hp, dtype))]
-    ran.append(getattr(lstm_cuda, lstm_cuda.wgrad_kernel(E_parts, Hp, dtype)))
+    ran.append(getattr(lstm_cuda, lstm_cuda.wgrad_kernel(Ep, Hp, dtype)))
     before = [f.launches for f in ran]
     fwd = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
     hs_f, hs_b, _, _, cs_f, cs_b = fwd
@@ -2430,12 +2459,14 @@ def test_repaired_widths_match_the_cpu_on_card(cuda_device, dtype, E_parts, H, G
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hp", [(80, 96), (48, 64), (16, 32)])
+@pytest.mark.parametrize("H,Hp", [(80, 96), (48, 64), (16, 32), (288, 288), (300, 320),
+                                  (320, 320), (1024, 1024)])
 def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
     """``fused_lstm_recurrence`` at a width the kernels do not take runs at
     ``recurrence_width`` (zero units in each gate block); its outputs and
     the gradients of ``xg`` and ``w`` equal the CPU plain op's at the true
-    H (1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16)."""
+    H (1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16). At 288 the cluster
+    kernels' 288-thread instance runs, past it the global-weight one."""
     assert lstm_cuda.recurrence_width(H, dtype) == Hp
     T, D, B, G = 12, 2, 10, 2
     tol = 1e-4 if dtype == torch.float32 else 3e-2
@@ -2477,3 +2508,77 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
             1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(1, 30), (1500, 40)])
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("E_parts,H", [([16], 16), ([48, 48], 48), ([80], 80), ([80, 80], 80)])
+def test_wgrad_mma_masked_gate_tile_matches_plain_on_card(cuda_device, E_parts, H, G, T, B):
+    """The bf16 tensor-core weight gradients at H % 32 != 0 (the last
+    128-row gate tile masked: 4H = 64, 192, 320) against their plain twin:
+    dgc zero past each row's ragged length, as a sweep leaves it, 1 and 2
+    parts, 1 and 5 weight groups, T = 1 (every h_prev past an end) and
+    1500. The dispatch hands ``bilstm_wgrad`` to it; ``bilstm_wgrad.cu`` by
+    name agrees too."""
+    cd = torch.bfloat16
+    assert lstm_cuda.wgrad_kernel(E_parts, H, cd) == "bilstm_wgrad_mma"
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=H + T)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd)[:2]
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    live = (torch.arange(T, device=cuda_device)[:, None] < lengths[None, :]).to(cd)
+    dgc = ((torch.rand(2, T, B, 4 * H, generator=g, device=cuda_device) * 2 - 1).to(cd)
+           * live[None, :, :, None])
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    before = (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), want, 3e-2)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 3e-2)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
+    """The CUDA-core wide forward (both variants) and lite sweep at H = 288
+    (their 288-thread instances: the bf16 layers JAX's lite plan takes past
+    256, padded to 288) against their plain twins: 60 rows in 5 weight
+    groups, ragged lengths, two dy streams; the row tiles ``wide_plan``
+    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16."""
+    H, G, B = 288, 5, 60
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
+                                                                 cuda_device, seed=T)
+    assert lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide"
+    assert lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite"
+    xg = input_gates(parts, w_ih, bias, dtype)
+    want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), want, tol)
+    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), want[:4], tol)
+    hs_f, hs_b, _, _, cs_f, cs_b = want
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
+            dtype)
+    _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_recurrence_op_past_1024_raises_on_card(cuda_device):
+    """The card's recurrence kernels take H <= 1024: the op at H = 1040
+    raises, naming the limit, and launches nothing; the same operands on
+    the CPU run the plain twins."""
+    T, D, B, G, H = 2, 2, 4, 1, 1040
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, torch.float32, cuda_device, "holes")
+    before = lstm_cuda.lstm_recurrence_fwd.launches
+    with pytest.raises(ValueError, match="H <= 1024 on the card"):
+        fused_lstm_recurrence(xg, valid, w, G, torch.float32)
+    assert lstm_cuda.lstm_recurrence_fwd.launches == before
+    hs, hn, cn = fused_lstm_recurrence(xg.cpu(), valid.cpu(), w.cpu(), G, torch.float32)
+    assert hs.shape == (T, D, B, H) and torch.isfinite(hs).all()

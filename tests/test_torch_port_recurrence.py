@@ -91,6 +91,36 @@ def test_fused_recurrence_matches_jax(dtype, G, mask):
     assert torch.all(txg.grad[torch.from_numpy(~valid)] == 0)
 
 
+@pytest.mark.parametrize("H", [288, 320])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_recurrence_matches_jax_past_256(dtype, H):
+    """The op at H = 288 (the kernels' 288-thread instance on the card) and
+    320 (padded to 320's global-weight instance there: on the CPU the plain
+    twins at the same padded width) against JAX's op, which takes them in
+    interpret mode: values and gradients at the tolerances above."""
+    T, D, B, G = 3, 2, 2, 1
+    jdt, tdt = DTYPES[dtype]
+    xg, valid, w, coef = op_case(H, T, D, B, H, G, "holes")
+
+    def jloss(xg, w):
+        out = jax_recurrence(xg, jnp.asarray(valid), w, G, jdt)
+        return sum(jnp.sum(o * c) for o, c in zip(out, coef)), out
+
+    (_, jout), (jdxg, jdw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(xg), jnp.asarray(w).astype(jdt))
+    txg = torch.from_numpy(xg).requires_grad_()
+    tw = torch.from_numpy(w).to(tdt).requires_grad_()
+    out = fused_lstm_recurrence(txg, torch.from_numpy(valid), tw, G, tdt)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, coef)).backward()
+    vt, gt = VALUE_TOL[dtype], GRAD_TOL[dtype]
+    for name, got, want in zip(("hs", "hn", "cn"), out, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=vt, err_msg=name)
+    np.testing.assert_allclose(txg.grad.numpy(), np.asarray(jdxg), atol=gt, err_msg="dxg")
+    jdw = np.asarray(jdw.astype(jnp.float32))
+    np.testing.assert_allclose(tw.grad.float().numpy(), jdw,
+                               atol=gt * max(1.0, float(np.abs(jdw).max())), err_msg="dw")
+
+
 def test_fused_recurrence_one_direction_and_three():
     """The twins take any D >= 1 (the JAX op too): D = 1 and D = 3."""
     for D in (1, 3):

@@ -1,22 +1,25 @@
 """Every layer width the JAX package's Pallas kernels take has a route of
-hand kernels in the port (``ops/lstm_cuda.py:padded_width`` and
-``layer_route``), and the zero-padded route is the unpadded layer.
+hand kernels in the port (``ops/lstm_cuda.py:padded_width``,
+``padded_parts`` and ``layer_route``), and the zero-padded route is the
+unpadded layer.
 
-* the grid: each layer shape at H <= 256 (H % 16 == 0) for which
+* the grid: each layer shape at 1 <= H <= 288 for which
   ``intrepppid_tpu/ops/lstm_pallas_layer.py:pick_plan`` returns a plan, at
   the train step's shapes (400 rows; layer 0 at E = H in 5 weight groups,
   a stacked layer at E = 2H) and the serve dispatch's (800 rows, 1 group),
   T = 1500, f32 and bf16, names a hand kernel (a ``csrc/*.cu`` source) for
-  each of the route's steps; the recurrence op takes every such H;
-* the padded layer, run through the plain twins on the CPU as on the card,
-  against the unpadded plain layer (values and gradients; ragged lengths,
-  grouped ``w_hh``): 1e-6 x max(1, max|ref|) in f32 (the same sums, in
-  another blocking) and 2^-8 x max(1, max|ref|) in bf16 (one bf16 rounding
-  of a stream value);
-* two-layer models at embedding 48, 80 and 112 against the JAX package
-  (``utils/convert.py:from_jax_params``, dropout off): the forward and one
-  train step's gradients, to the tolerance of the port's other step tests
-  (rtol 1e-4, atol 1e-5).
+  each of the route's steps at its padded widths (H and each input part);
+  the recurrence op takes every such H, on the CPU any H, and on the card
+  every H up to 1024;
+* the padded layer (units, input columns or both), run through the plain
+  twins on the CPU as on the card, against the unpadded plain layer
+  (values and gradients; ragged lengths, grouped ``w_hh``): 1e-6 x max(1,
+  max|ref|) in f32 (the same sums, in another blocking) and 2^-8 x max(1,
+  max|ref|) in bf16 (one bf16 rounding of a stream value);
+* two-layer models at embedding 48, 50, 80, 100, 112 and 272 against the
+  JAX package (``utils/convert.py:from_jax_params``, dropout off): the
+  forward and one train step's gradients, to the tolerance of the port's
+  other step tests (rtol 1e-4, atol 1e-5).
 """
 import jax
 import jax.numpy as jnp
@@ -55,29 +58,38 @@ def jax_takes(B, G, E_parts, H, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_every_width_jax_takes_names_hand_kernels(dtype):
+    """Every H from 1 to 288 at the four shapes: where JAX has a Pallas
+    plan, the port has a route at a padded shape (Hp >= H, each part at
+    least its width, Hp within the wide kernels' 288), the route takes
+    that shape as it is, and each of its steps names a hand kernel."""
     hand = set(lstm_cuda._SIGNATURES)
     taken = 0
-    for H in range(16, 257, 16):
+    for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
             E_parts = parts(H)
             if not jax_takes(B, G, E_parts, H, dtype):
                 continue
             taken += 1
             Hp = lstm_cuda.padded_width(E_parts, H, dtype)
+            Ep = lstm_cuda.padded_parts(E_parts, H, dtype)
             route = lstm_cuda.layer_route(E_parts, H, dtype)
-            assert route == lstm_cuda.layer_route(E_parts, Hp, dtype)
-            assert H <= Hp <= 256 and Hp % 16 == 0, (what, H, Hp)
+            assert lstm_cuda.padded_width(Ep, Hp, dtype) == Hp, (what, H, Hp, Ep)
+            assert lstm_cuda.padded_parts(Ep, Hp, dtype) == Ep, (what, H, Hp, Ep)
+            assert route == lstm_cuda.layer_route(Ep, Hp, dtype)
+            assert H <= Hp <= 288 and (Hp == H or Hp % 16 == 0), (what, H, Hp)
+            assert all(ep == e or (ep > e and ep % 8 == 0) for e, ep in zip(E_parts, Ep))
             if route == "resident":
-                kernels = [lstm_cuda.fwd_kernel(E_parts, Hp, dtype),
-                           lstm_cuda.sweep_kernel(E_parts, Hp, dtype)]
+                kernels = [lstm_cuda.fwd_kernel(Ep, Hp, dtype),
+                           lstm_cuda.sweep_kernel(Ep, Hp, dtype)]
             else:
-                kernels = [lstm_cuda.gates_kernel(E_parts, Hp, dtype),
+                kernels = [lstm_cuda.gates_kernel(Ep, Hp, dtype),
                            lstm_cuda.wide_fwd_kernel(Hp, dtype),
                            lstm_cuda.lite_kernel(Hp, dtype)]
-            kernels.append(lstm_cuda.wgrad_kernel(E_parts, Hp, dtype))
+            kernels.append(lstm_cuda.wgrad_kernel(Ep, Hp, dtype))
             assert set(kernels) <= hand, (what, H, kernels)
-    # JAX takes every shape of this grid but f32 at H = 256 (its scan there)
-    assert taken == 16 * len(SHAPES) - (len(SHAPES) if dtype == torch.float32 else 0)
+    # JAX has a Pallas plan for every shape of the grid up to H = 242 in f32
+    # and 286 in bf16 (its scan past them)
+    assert taken == (242 if dtype == torch.float32 else 286) * len(SHAPES)
 
 
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
@@ -85,7 +97,7 @@ def test_every_width_jax_takes_names_hand_kernels(dtype):
     ([80, 80], 80, torch.float32, 96, "wide"),
     ([80, 80], 80, torch.bfloat16, 96, "wide"),
     ([48, 48], 48, torch.float32, 48, "resident"),  # the f32 tensor-core sweep takes E = 96
-    ([48, 48], 48, torch.bfloat16, 64, "resident"),
+    ([48, 48], 48, torch.bfloat16, 48, "resident"),  # parts at 56: fewer products than H = 64
     ([112], 112, torch.float32, 128, "wide"),
     ([112, 112], 112, torch.bfloat16, 128, "wide"),
     ([240], 240, torch.bfloat16, 256, "wide"),
@@ -95,6 +107,8 @@ def test_every_width_jax_takes_names_hand_kernels(dtype):
 def test_padded_width_and_route(E_parts, H, dtype, Hp, route):
     assert lstm_cuda.padded_width(E_parts, H, dtype) == Hp
     assert lstm_cuda.layer_route(E_parts, H, dtype) == route
+    if (E_parts, H, dtype) == ([48, 48], 48, torch.bfloat16):
+        assert lstm_cuda.padded_parts(E_parts, H, dtype) == (56, 56)
     if (E_parts, H, dtype) == ([80], 80, torch.float32):
         assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_f32_onestage"
     if (E_parts, H, dtype) == ([48, 48], 48, torch.float32):
@@ -103,14 +117,22 @@ def test_padded_width_and_route(E_parts, H, dtype, Hp, route):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recurrence_op_takes_every_width_to_256(dtype):
+    """The op's widths (past 256 since the 288-thread and global-weight
+    instances): on the card every H up to 1024 runs at the next multiple
+    of 32 on hand kernels, and past 1024 the card's check raises, naming
+    the limit; the CPU's plain twins take any H, unpadded past 1024."""
     hand = set(lstm_cuda._SIGNATURES)
-    for H in range(16, 257, 16):
+    for H in list(range(1, 300)) + list(range(300, 1025, 29)) + [1024]:
         Hp = lstm_cuda.recurrence_width(H, dtype)
         assert Hp == max(32, -(-H // 32) * 32)
         assert {lstm_cuda.recurrence_sweep_kernel(Hp, dtype),
                 lstm_cuda.recurrence_wgrad_kernel(Hp, dtype), "lstm_recurrence_fwd"} <= hand
-    with pytest.raises(ValueError, match="H <= 256"):
-        lstm_cuda.recurrence_width(272, dtype)
+    for H in (1025, 1040, 4096):
+        with pytest.raises(ValueError, match="H <= 1024 on the card"):
+            lstm_cuda.recurrence_width(H, dtype)
+        assert lstm_cuda.recurrence_width(H, dtype, on_card=False) == H
+    with pytest.raises(ValueError, match="H % 32 == 0"):
+        lstm_cuda.recurrence_check(1056, dtype)
 
 
 def test_pad_gate_rows_keeps_each_gate_block_in_place():
@@ -148,12 +170,17 @@ def assert_within(got, want, tol, what):
         assert err <= tol * max(1.0, float(b.abs().max())), (what, n, err)
 
 
-@pytest.mark.parametrize("E_parts,H,G", [([80, 80], 80, 1), ([112], 112, 2), ([112, 112], 112, 1)])
+@pytest.mark.parametrize("E_parts,H,G", [([80, 80], 80, 1), ([112], 112, 2), ([112, 112], 112, 1),
+                                         ([10], 10, 2), ([50], 50, 4), ([100], 100, 2),
+                                         ([100, 100], 100, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_padded_layer_equals_unpadded_plain_layer(E_parts, H, G, dtype):
     """``layer_fwd`` and ``layer_bwd`` on the CPU run the plain twins at
-    the padded width; their results equal the plain layer at H."""
+    the padded shape (units; and at embedding 10, 50 and 100 input columns
+    too, ``padded_parts``); their results equal the plain layer at H."""
     assert lstm_cuda.padded_width(E_parts, H, dtype) > H
+    if H in (10, 50, 100):
+        assert lstm_cuda.padded_parts(E_parts, H, dtype) != tuple(E_parts)
     parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = layer_case(E_parts, H, G, dtype, H)
     got = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, dtype, with_states=True)
@@ -193,10 +220,10 @@ def test_padded_recurrence_op_equals_unpadded_plain_op(dtype):
     assert_within((xg_r.grad, w_r.grad), (dxg, dw), TOL[dtype], "backward")
 
 
-@pytest.mark.parametrize("embedding", [48, 80, 112])
+@pytest.mark.parametrize("embedding", [48, 50, 80, 100, 112, 272])
 def test_two_layer_model_matches_jax(embedding):
-    """A two-layer model (the factory's default) at embedding 48, 80 and
-    112, f32, dropout off: the eval step's loss and aux values (the eval
+    """A two-layer model (the factory's default) at embedding 48, 50, 80,
+    100, 112 and 272, f32, dropout off: the eval step's loss and aux values (the eval
     forward) and one train step's loss, aux values and every gradient
     against JAX ``step(train=True)`` (with every dropout rate 0 its forward
     is the eval forward)."""
