@@ -82,9 +82,11 @@ exits non-zero with no result):
    two-layer model at embedding 100 at the train shape (80 pairs,
    T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 and at
    272 in bf16, each with the kernels it must launch and must not; the
-   288-thread CUDA-core wide forward (both variants) and lite sweep at
-   their main path's shapes (layer 0 at embedding 272) against their
-   twins, timed beside their bounds and cuDNN; then a gradient step and
+   CUDA-core wide forward (both variants) and lite sweep in bf16 at their
+   main paths' shapes (layer 0 at embedding 272, their 288-thread
+   instances, and the stacked layer at embedding 80, run at H = 96)
+   against their twins, timed beside their bounds and cuDNN; then a
+   gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
    112 and (bf16) 272 and of the recurrence backend at embedding 80 (run
@@ -140,8 +142,13 @@ exits non-zero with no result):
    gradient one batched cuBLAS product on the rounded operands and, in
    bf16, the rounding, layout and product together); then the op past 256
    units (H = 288 on the cluster kernels' 288-thread instance, 512 and
-   1024 on the global-weight one) against its twins, and one call at
-   H = 512 (400 rows, T = 300) timed beside its bound and cuDNN;
+   1024 in f32 on the global-weight one and in bf16 on the tensor-core
+   kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``) against its twins, the
+   bf16 tensor-core kernels alone at H = 320, 512 and 1024 with masks from
+   lengths and with holes (2^-7 x max(1, max|ref|)) beside the
+   global-weight instance by name, and one call at H = 512 (400 rows,
+   T = 300) timed beside its bound and cuDNN, in bf16 the tensor-core
+   kernels and the global-weight instance in turns (new, old, old, new);
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -152,8 +159,9 @@ exits non-zero with no result):
    embedding 128, whose sweep only the cluster kernel takes; a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16, and of a one-layer model at embedding
-   320 (the forward and the cluster sweep on their global-weight
-   instance);
+   320 (in f32 the forward and the cluster sweep on their global-weight
+   instance; in bf16 the tensor-core kernels past 288, and never the
+   global-weight instance);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -161,11 +169,11 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (twenty-seven kernels, each with launches > 0 on
+11. the ``kernels`` line (twenty-nine kernels, each with launches > 0 on
     a main path; the 288-thread instances, the bf16 wgrad at H = 80 and
-    the recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*``
-    fields of their kernels' entries), the card's name and power limit,
-    and the result.
+    the f32 recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*``
+    fields of their kernels' entries; the bf16 op past 288 as entries of
+    its own), the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -222,6 +230,7 @@ def phase_build() -> dict:
         GATES_MMA_SMEM,
         LITE_MMA_ROWS,
         REC_WGRAD_MMA_SMEM,
+        REC_WIDE_MMA_ROWS,
         SMEM_LIMIT,
         WGRAD_F32_SMEM,
         WGRAD_MMA_SMEM,
@@ -235,6 +244,7 @@ def phase_build() -> dict:
         launch_plan,
         recurrence_f32_smem,
         recurrence_mma_smem,
+        recurrence_wide_mma_smem,
         wide_smem,
     )
 
@@ -287,6 +297,10 @@ def phase_build() -> dict:
                 smem[f"{kind}_wide H=288 R={R}"] = wide_smem(kind, 288, R)
         for H in (320, 512, 1024):
             smem[f"recurrence_{kind} H={H} R=2 (global weights)"] = wide_smem(kind, H, 2)
+            # the bf16 tensor-core kernels past 288, at each row tile they take
+            for rows in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
+                smem[f"recurrence_{kind}_wide_mma H={H} rows={rows}"] = \
+                    recurrence_wide_mma_smem(kind, H, rows)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -1212,7 +1226,9 @@ def train_counters():
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
             "lstm_recurrence_bwd_f32": L.lstm_recurrence_bwd_f32,
             "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad,
-            "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma}
+            "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma,
+            "lstm_recurrence_fwd_wide_mma": L.lstm_recurrence_fwd_wide_mma,
+            "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1364,7 +1380,7 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
 
 
 def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, expect=(),
-                     **widths) -> dict:
+                     never=(), **widths) -> dict:
     """One step's gradients on the card (the kernels) against the port's CPU
     plain path: same seeded weights and batch, every dropout rate 0;
     ``widths`` (embedding_size, rnn_num_layers) as the factory takes them.
@@ -1378,7 +1394,8 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
     the backward (no grad: the eval-variant forwards), and its loss is held
     to the same tolerance. The card's steps are a main path of their own:
     the launch counts are set to 0 just before them and read just after
-    (``launches``); each kernel named in ``expect`` must have launched."""
+    (``launches``); each kernel named in ``expect`` must have launched, and
+    none named in ``never``."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
 
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
@@ -1415,8 +1432,10 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
             n.startswith("encoder.lstm.") for n in grads["cuda"]):
         raise AssertionError("the card's step did not reach the same parameters")
     missing = [n for n in expect if launches[n] <= 0]
-    if missing:
-        raise AssertionError(f"the card's step ({dtype}, {widths}) never launched {missing}")
+    wrong = [n for n in never if launches[n] != 0]
+    if missing or wrong:
+        raise AssertionError(f"the card's step ({dtype}, {widths}) never launched {missing} "
+                             f"or launched {wrong}")
     extra = {}
     if eval_step:
         extra["eval_loss_err"] = abs(eval_losses["cuda"] - eval_losses["cpu"])
@@ -1557,25 +1576,30 @@ def padded_layer_timings(dev) -> list:
     return out
 
 
-def wide_288_kernels(dev) -> dict:
-    """The CUDA-core wide forward (both variants) and lite sweep at H = 288,
-    their 288-thread instances, at their main path's shapes: layer 0 of the
-    bf16 two-layer model at embedding 272 (E = 272, run at H = 288, 5
-    weight groups, two dy streams a direction, 400 rows, T = 1500), its
-    input gates from ``bilstm_gates_mma``. Each held against its plain twin
-    with the main path's lengths, then timed at full lengths beside the
-    twin (timed once, in the check), its bound at the bf16 rate at H = 288
-    (the kernel's own work) and at the true 272, and cuDNN's one-layer bf16
-    training forward, inference forward and backward for the input at
-    E = H = 272, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"."""
+def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
+                           seed=SEED + 50) -> dict:
+    """The CUDA-core wide forward (both variants) and lite sweep in bf16 at
+    the widths no tensor-core wide kernel takes, at their main paths'
+    shapes: by default layer 0 of the bf16 two-layer model at embedding
+    272 (E = 272, run at H = 288: their 288-thread instances, 5 weight
+    groups, two dy streams a direction), and (``E_parts`` (80, 80), H = 80,
+    G = 1, ny = 1, run at 96) the stacked layer of the bf16 two-layer model
+    at embedding 80; 400 rows, T = 1500, the input gates from
+    ``bilstm_gates_mma``. Each held against its plain twin with the main
+    path's lengths, then timed at full lengths beside the twin (timed once,
+    in the check), its bound at the bf16 rate at the padded H (the kernel's
+    own work) and at the true H, and cuDNN's one-layer bf16 training
+    forward, inference forward and backward for the input at the true
+    widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
-    cd, E, H, G, ny = torch.bfloat16, 272, 272, G_TRAIN, 2
-    Hp = L.padded_width([E], H, cd)
+    cd, E_parts = torch.bfloat16, list(E_parts)
+    E = sum(E_parts)
+    Hp = L.padded_width(E_parts, H, cd)
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
-    if picked != (288, "bilstm_fwd_wide", "bilstm_bwd_lite"):
-        raise AssertionError(f"embedding 272's layer 0 in bf16 runs {picked}")
+    if picked != (Hp_want, "bilstm_fwd_wide", "bilstm_bwd_lite"):
+        raise AssertionError(f"the layer at E={E_parts}, H={H} in bf16 runs {picked}")
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
              "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
@@ -1584,7 +1608,7 @@ def wide_288_kernels(dev) -> dict:
         ("lite", "bilstm_bwd_lite"))}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
-            [E], Hp, G, cd, dev, SEED + 50, full_lengths=full, ny=ny)
+            E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
         xg = L.bilstm_gates(parts, w_ih, bias, cd)
         calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
                  "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
@@ -1631,7 +1655,8 @@ def phase_widths(dev) -> dict:
     embedding 100 at the train shape (80 pairs, T = 1500, dropout on, 2
     steps and an eval step) in f32 and bf16 and one at embedding 272 in
     bf16 (its steps timed), each with the kernels it launched;
-    ``wide_288_kernels``; then for each of ``WIDTH_STEPS`` one gradient
+    ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288) and at
+    embedding 80's stacked layer (H = 96); then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
     kernels launched (on the recurrence backend with
@@ -1651,7 +1676,8 @@ def phase_widths(dev) -> dict:
         others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + ("bilstm_wgrad",)) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
-    kernels_288 = wide_288_kernels(dev)
+    kernels_288 = wide_cuda_core_kernels(dev)
+    kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51)
     steps = []
     for backend, width, dtype, expect in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -1662,7 +1688,7 @@ def phase_widths(dev) -> dict:
             lstm.DEFAULT_BACKEND = "auto"
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
-           "kernels_288": kernels_288, "grad_checks": steps}
+           "kernels_288": kernels_288, "kernels_96": kernels_96, "grad_checks": steps}
     emit(out)
     return out
 
@@ -2383,15 +2409,21 @@ def cluster_sweep_h128(dev, H=128) -> dict:
 
 def recurrence_past_288(dev) -> dict:
     """The recurrence op's kernels past the 256 units they once stopped at:
-    H = 288 (the cluster kernels' 288-thread instance) and 512 and 1024 (the
-    global-weight instance, its slices read from an L2-resident copy), D =
-    2, 16 rows in 2 weight groups, T = 64, masks from lengths, f32 and
+    H = 288 (the cluster kernels' 288-thread instance), 512 and 1024 (f32:
+    the global-weight instance, its slices read from an L2-resident copy;
+    bf16: the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``),
+    D = 2, 16 rows in 2 weight groups, T = 64, masks from lengths, f32 and
     bf16: the forward, the sweep and the weight gradient against their plain
-    twins (``checks``). Then one call of each at H = 512, 400 rows in 5
-    groups, T = 300, full-length masks, timed beside its plain twin (timed
-    once, in the check), its bound (f32 CUDA cores; the bf16 wgrad at the
-    bf16 rate) and cuDNN's one-layer bidirectional LSTM at that width in
-    the same dtype, TF32 off (``h512``)."""
+    twins (``checks``). Then the bf16 tensor-core kernels alone at H = 320,
+    512 and 1024, masks from lengths and masks with holes, against their
+    twins at 2^-7 x max(1, max|ref|), and the global-weight instance by name
+    on the same operands (``wide_mma_checks``). Then one call of each at
+    H = 512, 400 rows in 5 groups, T = 300, full-length masks, timed beside
+    its plain twin (timed once, in the check), its bound (f32 CUDA cores in
+    f32, the bf16 rate in bf16) and cuDNN's one-layer bidirectional LSTM at
+    that width in the same dtype, TF32 off; in bf16 the tensor-core kernels
+    and the global-weight instance by name in turns (new, old, old, new), and
+    the clusters the card holds at once (``h512``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -2399,7 +2431,7 @@ def recurrence_past_288(dev) -> dict:
         recurrence_wgrad,
     )
 
-    checks, h512 = [], {}
+    checks, wide_mma_checks, h512 = [], [], {}
     for H in (288, 512, 1024):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[dtype]
@@ -2416,15 +2448,44 @@ def recurrence_past_288(dev) -> dict:
             torch.cuda.synchronize()
             check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": "lengths",
                      "dtype": str(dtype).replace("torch.", ""),
+                     "fwd": L.recurrence_fwd_kernel(H, dtype),
                      "sweep": L.recurrence_sweep_kernel(H, dtype),
                      "wgrad": L.recurrence_wgrad_kernel(H, dtype),
-                     "global_weights": H > L.WIDE_MAX_THREADS,
+                     "global_weights": H > L.WIDE_MAX_THREADS and dtype == torch.float32,
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{tol} x max(1, max|ref|)"}
             checks.append(check)
             if not all(ok for _, ok in res.values()):
                 emit({"phase": "recurrence_kernel", "failed": check})
                 raise AssertionError(f"the recurrence op past 288 disagrees: {check}")
+            del xg, valid, w, dhs, ref, args, dxg
+    cd, tol = torch.bfloat16, 2.0 ** -7
+    for H in (320, 512, 1024):
+        for mask in ("lengths", "holes"):
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(64, H, 2, cd, dev, mask,
+                                                            SEED + 7 * H, B=16)
+            ref = recurrence_fwd(xg, valid, w, 2, cd)
+            res = {n: rel_err(a, b, tol) for n, a, b in zip(
+                ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd_wide_mma(xg, valid, w, 2, cd),
+                ref)}
+            args = (xg, valid, w, ref[0], ref[1], dhs, dhn, dcn, 2, cd)
+            dxg = recurrence_sweep(*args)
+            res["dxg"] = rel_err(L.lstm_recurrence_bwd_wide_mma(*args), dxg, tol)
+            # the global-weight instance by name, at the repo's bf16 tolerance
+            old = {"hs": rel_err(L.lstm_recurrence_fwd(
+                       xg, valid, w, 2, cd, kernel="lstm_recurrence_fwd")[0], ref[0], TOL[cd]),
+                   "dxg": rel_err(L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
+                                  dxg, TOL[cd])}
+            torch.cuda.synchronize()
+            check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": mask, "dtype": "bfloat16",
+                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{tol} x max(1, max|ref|)",
+                     "global_weights_max_abs_err": {n: e for n, (e, _) in old.items()},
+                     "global_weights_tol": f"{TOL[cd]} x max(1, max|ref|)"}
+            wide_mma_checks.append(check)
+            if not all(ok for _, ok in list(res.values()) + list(old.values())):
+                emit({"phase": "recurrence_kernel", "failed": check})
+                raise AssertionError(f"a bf16 recurrence kernel past 288 disagrees: {check}")
             del xg, valid, w, dhs, ref, args, dxg
     H, G, T = 512, G_TRAIN, 300
     for dtype in (torch.float32, torch.bfloat16):
@@ -2439,21 +2500,40 @@ def recurrence_past_288(dev) -> dict:
         _, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
         t = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
              "dtype": str(dtype).replace("torch.", ""),
+             "fwd": L.recurrence_fwd_kernel(H, dtype), "sweep": L.recurrence_sweep_kernel(H, dtype),
              "wgrad": L.recurrence_wgrad_kernel(H, dtype),
              "max_abs_err": {"hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, G, dtype)[0],
                                            hs, TOL[dtype])[0],
                              "dxg": rel_err(L.lstm_recurrence_bwd(*args), dxg, TOL[dtype])[0]},
-             "fwd_ms": time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype), 3),
-             "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
              "wgrad_ms": time_ms(lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
              "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
              "wgrad_plain_ms": wgrad_plain_ms}
-        add_bounds(t, recurrence_work(T, H, G, size), torch.float32,
-                   {"wgrad": kernel_peak(dtype)})
+        fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype)  # noqa: E731
+        bwd = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
+        if dtype == torch.bfloat16:
+            # new, old, old, new: the tensor-core kernels and the global-weight
+            # instance by name, in one run on one card
+            t["fwd_ms"], t["fwd_ms_again"], t["fwd_global_weights_ms"] = in_turns(
+                fwd, lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype,
+                                                   kernel="lstm_recurrence_fwd"), 3)
+            t["bwd_ms"], t["bwd_ms_again"], t["bwd_global_weights_ms"] = in_turns(
+                bwd, lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), 3)
+            t["plans"] = {kind: dict(zip(("rows", "tiles", "smem"), L.wide_plan(
+                f"rec_{kind}_mma", B_TRAIN, G, H, L._max_clusters(
+                    f"lstm_recurrence_{kind}_wide_mma", dtype, H, dev), D_REC)))
+                for kind in ("fwd", "bwd")}
+            t["max_active_clusters"] = {
+                f"{k[0]} H={k[2]} rows={k[3]}": v for k, v in L._cluster_counts.items()
+                if k[0].endswith("_wide_mma") and k[2] == H}
+            add_bounds(t, recurrence_work(T, H, G, size), dtype)
+        else:
+            t["fwd_ms"], t["bwd_ms"] = time_ms(fwd, 3), time_ms(bwd, 3)
+            add_bounds(t, recurrence_work(T, H, G, size), torch.float32,
+                       {"wgrad": kernel_peak(dtype)})
         del xg, valid, w, dhs, ref, hs, cs, args, dxg
         t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev, dtype=dtype)
         h512[t["dtype"]] = t
-    return {"checks": checks, "h512": h512}
+    return {"checks": checks, "wide_mma_checks": wide_mma_checks, "h512": h512}
 
 
 def phase_recurrence_kernel(dev) -> dict:
@@ -2635,14 +2715,17 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
-        # a one-layer model at embedding 320: the forward and the cluster
-        # sweep past 288, on their global-weight instance
+        # a one-layer model at embedding 320: in f32 the forward and the
+        # cluster sweep past 288 on their global-weight instance, in bf16 the
+        # tensor-core kernels past 288 and never the global-weight instance
+        old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
+        wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
         grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
-            dev, dtype=dtype, eval_step=True, expect=(
-                "lstm_recurrence_fwd", "lstm_recurrence_bwd", wgrad), embedding_size=320,
+            dev, dtype=dtype, eval_step=True, expect=expect, never=never, embedding_size=320,
             rnn_num_layers=1)
-            for dtype, wgrad in ((torch.float32, "lstm_recurrence_wgrad"),
-                                 (torch.bfloat16, "lstm_recurrence_wgrad_mma"))}
+            for dtype, expect, never in (
+                (torch.float32, old + ("lstm_recurrence_wgrad",), wide),
+                (torch.bfloat16, wide + ("lstm_recurrence_wgrad_mma",), old))}
     finally:
         lstm.DEFAULT_BACKEND = "auto"
     median = float(np.median(step_ms))
@@ -3089,6 +3172,16 @@ def main() -> int:
                               "400 rows, T=1500, bound at H=288 (true_bound_ms at 272), "
                               "launches in that model's steps, library: cuDNN one-layer bf16 "
                               "at E=H=272")
+            # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
+            k96 = widths["kernels_96"][key]
+            entry.update({f"h96_{k}": k96[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
+            entry["h96_max_abs_err"] = max(k96["max_abs_err"].values())
+            entry["h96_launches"] = train["steps_embedding_80"]["bfloat16"]["launches"][name]
+            entry["work"] += ("; h96_*: bf16 on the stacked layer of the two-layer model at "
+                              "embedding 80 (E=80+80, run at H=96, one weight group), 400 rows, "
+                              "T=1500, bound at H=96 (true_bound_ms at 80), launches in that "
+                              "model's bf16 steps, library: cuDNN one-layer bf16 at E=160, H=80")
         kernels.append(entry)
     # the tensor-core gates, wide forward (both variants) and lite sweep: the
     # bf16 scaled step and its eval step; each error name the checks give
@@ -3185,9 +3278,12 @@ def main() -> int:
                               "library: cuDNN one bidirectional nn.LSTM layer at that width; "
                               "h512_max_abs_err over H=288, 512 and 1024")
             if key == "fwd":
-                entry["h320_launches"] = rpath["grad_check_embedding_320"]["bfloat16"][
+                entry["h320_launches"] = rpath["grad_check_embedding_320"]["float32"][
                     "launches"][name]
-                entry["work"] += "; h320_launches: the bf16 model at embedding 320, one layer"
+                entry["h512_bf16_ms"] = past["h512"]["bfloat16"]["fwd_global_weights_ms"]
+                entry["work"] += ("; h320_launches: the f32 model at embedding 320, one layer "
+                                  "(in bf16 the tensor-core forward takes it); h512_bf16_ms: "
+                                  "the global-weight instance by name in bf16")
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
                           "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
@@ -3214,16 +3310,17 @@ def main() -> int:
         "library_ms": c128["library_ms"],
         **{f"h512_{k}": rk["past_288"]["h512"]["float32"][f"bwd_{k}"]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "h512_bf16_ms": rk["past_288"]["h512"]["bfloat16"]["bwd_ms"],
-        "h512_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]),
-        "h320_launches": rpath["grad_check_embedding_320"]["bfloat16"]["launches"][
+        "h512_bf16_ms": rk["past_288"]["h512"]["bfloat16"]["bwd_global_weights_ms"],
+        "h512_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
+                                if c["sweep"] == "lstm_recurrence_bwd"),
+        "h320_launches": rpath["grad_check_embedding_320"]["float32"]["launches"][
             "lstm_recurrence_bwd"],
         "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
                 "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
                 "one-layer nn.LSTM backward (input), with the projection's dx; h512_*: its "
                 "global-weight instance, one call at H=512 (400 rows, 5 groups, T=300), f32 "
-                "(h512_bf16_ms: bf16 compute dtype), max_abs_err over H=288, 512 and 1024 in "
-                "both dtypes; h320_launches: the bf16 model at embedding 320, one layer",
+                "(h512_bf16_ms: bf16 compute dtype, by name), max_abs_err over H=288, 512 and "
+                "1024 where it runs; h320_launches: the f32 model at embedding 320, one layer",
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
@@ -3272,7 +3369,40 @@ def main() -> int:
                 "new); library: the f32 streams rounded to bf16, laid out and multiplied in "
                 "one batched cuBLAS product; bmm_ms: that product alone",
     })
-    if len(kernels) != 27 or any(k["launches"] <= 0 for k in kernels):
+    # the bf16 tensor-core recurrence kernels past 288: their main path is the
+    # bf16 one-layer model at embedding 320; timed at H = 512 (400 rows in 5
+    # groups, T = 300), the global-weight instance by name in turns
+    past, h512 = rk["past_288"], rk["past_288"]["h512"]["bfloat16"]
+    for key, name, replaces, errs in (
+            ("fwd", "lstm_recurrence_fwd_wide_mma", "lstm_pallas.py:116", rec_errs["fwd"]),
+            ("bwd", "lstm_recurrence_bwd_wide_mma", "lstm_pallas.py:185", rec_errs["bwd"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": rpath["grad_check_embedding_320"]["bfloat16"]["launches"][name],
+            "max_abs_err": max(v for c in past["wide_mma_checks"]
+                               for n, v in c["max_abs_err"].items() if n in errs),
+            "ms": h512[f"{key}_ms"],
+            "ms_again": h512[f"{key}_ms_again"],
+            "plain_ms": h512[f"{key}_plain_ms"],
+            "bound_ms": h512[f"{key}_bound_ms"],
+            "bound_by": h512[f"{key}_bound_by"],
+            "library_ms": h512[f"{key}_library_ms"],
+            "global_weights_ms": h512[f"{key}_global_weights_ms"],
+            "rows": h512["plans"][key]["rows"],
+            "max_active_clusters": h512["max_active_clusters"],
+            "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full "
+                    "lengths, bf16 compute dtype; bound at the bf16 rate; global_weights_ms: "
+                    "the global-weight instance of lstm_recurrence_"
+                    f"{key}.cu by name on the same operands (new, old, old, new); library: "
+                    "cuDNN one bidirectional nn.LSTM layer in bf16 at that width, which also "
+                    "does the input projection; max_abs_err over H=320, 512 and 1024, masks "
+                    "from lengths and with holes (tolerance 2^-7 x max(1, max|ref|)); "
+                    "launches: the bf16 model at embedding 320, one layer",
+        })
+    if len(kernels) != 29 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

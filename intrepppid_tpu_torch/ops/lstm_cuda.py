@@ -80,21 +80,30 @@ Beside the layer kernels, the time-major recurrence op
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
 of its own: three on the wide route's cluster design at every width they
-take (past 288 the forward and the cluster sweep read their weight slices
-from an L2-resident global copy, ``recurrence_global_weights``), and two
+take (past 288 the f32 forward and cluster sweep read their weight slices
+from an L2-resident global copy, ``recurrence_global_weights``), and four
 tensor-core ones:
 
-* ``lstm_recurrence_fwd`` launches ``csrc/lstm_recurrence_fwd.cu``
-  (``lstm_pallas.py:145 _fwd_pallas``). Plain twin: ``recurrence_fwd``.
+* ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
+  _fwd_pallas``, by one of two kernels (``recurrence_fwd_kernel``):
+  ``lstm_recurrence_fwd_wide_mma`` launches
+  ``csrc/lstm_recurrence_fwd_wide_mma.cu`` (bf16 past 288: 8-block
+  clusters, the product on ``mma.sync`` from bf16 weight fragments read
+  from L2, ``recurrence_mma_weights``), ``lstm_recurrence_fwd`` itself
+  launches the cluster kernel ``csrc/lstm_recurrence_fwd.cu`` for the
+  rest. Plain twin of both: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
-  _bwd_pallas`` (``dxg``), by one of three kernels
+  _bwd_pallas`` (``dxg``), by one of four kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
   ``csrc/lstm_recurrence_bwd_mma.cu`` (bf16, H = 32 or 64: one block per
   row tile, tensor cores), ``lstm_recurrence_bwd_f32`` launches
   ``csrc/lstm_recurrence_bwd_f32.cu`` (f32, H = 32 or 64: the same design
-  in three tf32 passes), ``lstm_recurrence_bwd`` itself launches the
-  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest (H >= 96).
-  Plain twin of all three: ``recurrence_sweep``.
+  in three tf32 passes), ``lstm_recurrence_bwd_wide_mma`` launches
+  ``csrc/lstm_recurrence_bwd_wide_mma.cu`` (bf16 past 288: the forward's
+  clusters and weight fragments, both products on ``mma.sync``),
+  ``lstm_recurrence_bwd`` itself launches the cluster kernel
+  ``csrc/lstm_recurrence_bwd.cu`` for the rest (H >= 96). Plain twin of
+  all four: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
@@ -117,7 +126,8 @@ own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
 the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_gates``,
-``bilstm_bwd_lite``, ``lstm_recurrence_bwd`` and ``lstm_recurrence_wgrad``.
+``bilstm_bwd_lite``, ``lstm_recurrence_fwd``, ``lstm_recurrence_bwd`` and
+``lstm_recurrence_wgrad``.
 """
 from __future__ import annotations
 
@@ -229,6 +239,13 @@ FWD_WIDE_MMA_THREADS = 256
 # the f32 tensor-core wgrad (three tf32 passes): the tiles of the bf16 one,
 # cp.async stages, and its dynamic shared memory (f32 rows of 128 + 8)
 WGRAD_F32_STAGES = 4
+# the recurrence op's bf16 tensor-core kernels past WIDE_MAX_THREADS
+# (lstm_recurrence_{fwd,bwd}_wide_mma.cu): threads a block, the first width
+# they take, and the row tiles each is instantiated for, by the unit groups
+# of 8 a warp owns (one up to H = 512, two past it)
+REC_WIDE_MMA_THREADS, REC_WIDE_MMA_MIN_H = 256, 320
+REC_WIDE_MMA_ROWS = {"fwd": {1: (16, 32, 48, 80), 2: (16, 32)},
+                     "bwd": {1: (16, 32), 2: (16,)}}
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
@@ -270,6 +287,10 @@ _SIGNATURES = {
     "lstm_recurrence_bwd_f32": ("lstm_recurrence_bwd_f32", [_P] * 9 + [_I] * 7 + [_P]),
     "bilstm_fwd_wide_mma": ("bilstm_fwd_wide_mma", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_wgrad_f32": ("bilstm_wgrad_f32", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "lstm_recurrence_fwd_wide_mma": ("lstm_recurrence_fwd_wide_mma",
+                                     [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd_wide_mma": ("lstm_recurrence_bwd_wide_mma",
+                                     [_I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -366,6 +387,12 @@ _CONSTANTS = {
                           "bilstm_wgrad_f32_smem"),
                          (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
                           WGRAD_F32_STAGES, WGRAD_F32_SMEM)),
+    **{f"lstm_recurrence_{kind}_wide_mma": (
+        tuple(f"lstm_recurrence_{kind}_wide_mma_{c}"
+              for c in ("cluster", "threads", "pad", "min_h", "max_h", "rows1", "rows2")),
+        (WIDE_CLUSTER, REC_WIDE_MMA_THREADS, MMA_PAD, REC_WIDE_MMA_MIN_H, REC_MAX_H,
+         *(sum(1 << (r // 8) for r in REC_WIDE_MMA_ROWS[kind][n]) for n in (1, 2))))
+       for kind in ("fwd", "bwd")},
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -988,7 +1015,11 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     units. ``kind`` "fwd_mma" (the
     tensor-core forward, a row tile of ``rows``): the bf16 slice and, per
     row, two bf16 h tiles and the block's new h and c staged (both variants
-    take the same, so they take the same tile)."""
+    take the same, so they take the same tile). ``kind`` "rec_fwd_mma" and
+    "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
+    (``recurrence_wide_mma_smem``)."""
+    if kind in ("rec_fwd_mma", "rec_bwd_mma"):
+        return recurrence_wide_mma_smem(kind[4:7], H, rows)
     U = H // WIDE_CLUSTER
     if kind == "fwd_mma":
         BR, pad = rows, MMA_PAD
@@ -1022,10 +1053,13 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     card in the fewest waves, and among those the smallest tile; ``rows``
     is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
-    ``FWD_WIDE_MMA_ROWS`` for "fwd_mma") for the tensor-core ones.
+    ``FWD_WIDE_MMA_ROWS`` for "fwd_mma", ``REC_WIDE_MMA_ROWS`` at H for
+    "rec_fwd_mma" and "rec_bwd_mma") for the tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS, "fwd_mma": FWD_WIDE_MMA_ROWS}.get(kind, WIDE_ROWS)
+    if kind in ("rec_fwd_mma", "rec_bwd_mma"):
+        rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
@@ -1046,7 +1080,9 @@ _cluster_counts: Dict[tuple, int] = {}
 _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
                 "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
-                "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1]}
+                "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1],
+                "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
+                "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
@@ -2375,18 +2411,84 @@ def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
             f"lstm_recurrence_bwd_f32 float32 there), got H={H}, {compute_dtype}")
 
 
+def recurrence_wide_mma_check(H: int, compute_dtype: torch.dtype) -> None:
+    """ValueError for a width or compute dtype the recurrence op's bf16
+    tensor-core kernels past 288 (``lstm_recurrence_{fwd,bwd}_wide_mma``)
+    do not take: they take bfloat16 with H % 32 == 0 from
+    ``REC_WIDE_MMA_MIN_H`` to ``REC_MAX_H``."""
+    if compute_dtype != torch.bfloat16 or H % 32 or not REC_WIDE_MMA_MIN_H <= H <= REC_MAX_H:
+        raise ValueError(
+            f"lstm_recurrence_fwd_wide_mma and lstm_recurrence_bwd_wide_mma take compute dtype "
+            f"bfloat16 with H % 32 == 0 from {REC_WIDE_MMA_MIN_H} to {REC_MAX_H}, got H={H}, "
+            f"{compute_dtype}")
+
+
+def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
+    """The kernel the recurrence op's forward takes, by width and compute
+    dtype alone: bfloat16 past ``WIDE_MAX_THREADS`` units the tensor-core
+    ``"lstm_recurrence_fwd_wide_mma"``; the cluster kernel
+    ``"lstm_recurrence_fwd"`` for the rest (f32 at every width, bf16 up to
+    288); ValueError for what neither takes (``recurrence_check``)."""
+    recurrence_check(H, compute_dtype)
+    if compute_dtype == torch.bfloat16 and H > WIDE_MAX_THREADS:
+        return "lstm_recurrence_fwd_wide_mma"
+    return "lstm_recurrence_fwd"
+
+
 def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's sweep takes, by width and compute
     dtype alone: at H = 32 or 64 the tensor-core ones,
     ``"lstm_recurrence_bwd_mma"`` for bfloat16 and
-    ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; the
-    cluster kernel ``"lstm_recurrence_bwd"`` for H = 96 to ``REC_MAX_H``
-    in either dtype; ValueError for what none takes."""
+    ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; bfloat16
+    past ``WIDE_MAX_THREADS`` the tensor-core
+    ``"lstm_recurrence_bwd_wide_mma"``; the cluster kernel
+    ``"lstm_recurrence_bwd"`` for the rest (f32 from 96 to ``REC_MAX_H``,
+    bf16 from 96 to 288); ValueError for what none takes."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
             else "lstm_recurrence_bwd_f32"
+    if compute_dtype == torch.bfloat16 and H > WIDE_MAX_THREADS:
+        return "lstm_recurrence_bwd_wide_mma"
     return "lstm_recurrence_bwd"
+
+
+def recurrence_wide_mma_smem(kind: str, H: int, rows: int) -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_{kind}_wide_mma``
+    (``kind`` "fwd" or "bwd") at H units and a row tile of ``rows``
+    (``csrc/lstm_recurrence_{fwd,bwd}_wide_mma.cu:smem_bytes``). "fwd": two
+    bf16 h tiles and the block's new h staged (8 units for each of its at
+    most ceil(H / 64) unit groups). "bwd": the f32 h_prev tile, its bf16
+    rounding, the block's bf16 dgates tile (32 gate columns a group) and the
+    f32 partial dh of all H units (rows padded to 8 mod 16). ValueError for
+    a width ``recurrence_wide_mma_check`` refuses or a row tile neither
+    kernel is instantiated for."""
+    recurrence_wide_mma_check(H, torch.bfloat16)
+    if rows not in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
+        raise ValueError(f"lstm_recurrence_{kind}_wide_mma: no instance for a row tile of "
+                         f"{rows} at H={H}")
+    groups = -(-H // 64)
+    if kind == "fwd":
+        return 2 * rows * (H + MMA_PAD) * 2 + rows * (8 * groups + MMA_PAD) * 2
+    part_stride = rows + (8 - rows) % 16
+    return (rows * H * 4 + rows * (H + MMA_PAD) * 2 + rows * (32 * groups + MMA_PAD) * 2
+            + H * part_stride * 4)
+
+
+def recurrence_mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """The copy of ``w (D, G, H, 4H)`` (bf16) that the bf16 tensor-core
+    kernels past 288 read: for each (d, g), unit group of 8, k16 step of the
+    H inputs and m16 half of the group's 32 permuted gate rows (row
+    32 * group + 8 * gate + unit % 8, ``bilstm_mma.cuh``), every lane's mma
+    A fragment, ``(D, G, H / 8, H / 16, 2, 32, 8)``; lane 4 g + t holds rows
+    g, g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9 in the register order
+    of ``mma.sync`` (``csrc/lstm_recurrence_wide_mma.cuh``)."""
+    D, G, H, _ = w.shape
+    a = w.reshape(D, G, H, 4, H // 8, 8).permute(0, 1, 4, 3, 5, 2)  # [group][gate][u % 8][k]
+    # gate = 2 mt + hi, row g = u % 8; k = 16 kk + 8 kh + 2 t + e
+    a = a.reshape(D, G, H // 8, 2, 2, 8, H // 16, 2, 4, 2)
+    return a.permute(0, 1, 2, 6, 3, 5, 8, 7, 4, 9).reshape(D, G, H // 8, H // 16, 2, 32, 8) \
+        .contiguous()
 
 
 def recurrence_mma_smem(H: int) -> int:
@@ -2412,8 +2514,10 @@ def recurrence_f32_smem(H: int) -> int:
 
 def recurrence_global_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
     """The copy of ``w (D, G, H, 4H)`` the cluster kernels read past
-    ``WIDE_MAX_THREADS`` units, where a block's f32 slice no longer fits
-    shared memory: f32, laid out as the shared slices are, ``(D, G,
+    ``WIDE_MAX_THREADS`` units (in f32, and in bf16 when asked for by
+    name: bf16 there runs ``recurrence_mma_weights``' kernels), where a
+    block's f32 slice no longer fits shared memory: f32, laid out as the
+    shared slices are, ``(D, G,
     WIDE_CLUSTER, H, H / 8, 4)`` ([d][g][block][k][unit][gate]), so each
     block reads one contiguous slice; None at the widths whose slices stay
     in shared memory."""
@@ -2446,6 +2550,7 @@ def _recurrence_operands(xg, valid, w, G, cd, what):
 
 def lstm_recurrence_fwd(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked recurrence over time-major input gates; the contract of
     ``ops/lstm_recurrence.py:recurrence_fwd``.
@@ -2453,19 +2558,29 @@ def lstm_recurrence_fwd(
     :param xg: ``(T, D, B, 4H)`` f32; ``valid`` ``(T, D, B)`` bool or int;
         ``w`` ``(D, G, H, 4H)`` in ``compute_dtype``.
     :returns: ``hs, cs (T, D, B, H)`` and ``hn, cn (D, B, H)``, f32.
+
+    On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
+    for its width and dtype: the tensor-core one through
+    :func:`lstm_recurrence_fwd_wide_mma` (whose ``.launches`` then counts
+    it), or the cluster kernel here. ``kernel="lstm_recurrence_fwd"`` asks
+    for the latter by name (to time it beside the other).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
-    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, "lstm_recurrence_fwd")
+    name = "lstm_recurrence_fwd"
+    if kernel not in (None, name, "lstm_recurrence_fwd_wide_mma"):
+        raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    if (kernel or recurrence_fwd_kernel(H, cd)) == "lstm_recurrence_fwd_wide_mma":
+        return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd)
     hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
     hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
     cn = torch.zeros_like(hn)
     if B * D == 0 or T == 0:
         return hs, cs, hn, cn
-    name = "lstm_recurrence_fwd"
     R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
     wl = recurrence_global_weights(w)
     with torch.cuda.device(dev):
@@ -2480,6 +2595,42 @@ def lstm_recurrence_fwd(
 
 
 lstm_recurrence_fwd.launches = 0
+
+
+def lstm_recurrence_fwd_wide_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward on the tensor cores past 288 units
+    (``csrc/lstm_recurrence_fwd_wide_mma.cu``: 8-block clusters, the bf16
+    weight fragments read from L2 once a step for the whole row tile); the
+    contract of :func:`lstm_recurrence_fwd`. Takes bfloat16 with H % 32 == 0
+    from 320 to ``REC_MAX_H`` and raises for the rest."""
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_fwd_wide_mma"
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    recurrence_wide_mma_check(H, cd)
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    R, tiles, smem = wide_plan("rec_fwd_mma", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    wg = recurrence_mma_weights(w)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd_wide_mma(
+            R, xg.data_ptr(), valid8.data_ptr(), wg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd_wide_mma.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd_wide_mma.launches = 0
 
 
 def _recurrence_sweep_operands(what, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd):
@@ -2509,22 +2660,25 @@ def lstm_recurrence_bwd(
     ``dcn (D, B, H)`` are f32, or None for zero.
 
     On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
-    for its width and dtype: the tensor-core one through
-    :func:`lstm_recurrence_bwd_mma` (whose ``.launches`` then counts it), or
-    the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks for the
-    latter by name (to time it beside the others)."""
+    for its width and dtype: a tensor-core one through
+    :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32` or
+    :func:`lstm_recurrence_bwd_wide_mma` (whose ``.launches`` then counts
+    it), or the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks
+    for the latter by name (to time it beside the others)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, *_TILE_SWEEP):
+    if kernel not in (None, name, *_TILE_SWEEP, "lstm_recurrence_bwd_wide_mma"):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     kernel = kernel or recurrence_sweep_kernel(H, cd)
     if kernel in _TILE_SWEEP:
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if kernel == "lstm_recurrence_bwd_wide_mma":
+        return lstm_recurrence_bwd_wide_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
@@ -2543,6 +2697,43 @@ def lstm_recurrence_bwd(
 
 
 lstm_recurrence_bwd.launches = 0
+
+
+def lstm_recurrence_bwd_wide_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The recurrence's backward sweep on the tensor cores past 288 units
+    (``csrc/lstm_recurrence_bwd_wide_mma.cu``: 8-block clusters, both
+    products on ``mma.sync`` from the bf16 weight fragments in L2, the
+    partial dh summed in rank order); the contract of
+    :func:`lstm_recurrence_bwd`. Takes bfloat16 with H % 32 == 0 from 320
+    to ``REC_MAX_H`` and raises for the rest."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_bwd_wide_mma"
+    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
+        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    recurrence_wide_mma_check(H, cd)
+    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * D * T == 0:
+        return dxg
+    R, tiles, smem = wide_plan("rec_bwd_mma", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    wg = recurrence_mma_weights(w)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_bwd_wide_mma(
+            R, xg.data_ptr(), valid8.data_ptr(), wg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(), D, T, B, H, G, tiles,
+            smem, torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_bwd_wide_mma.launches += 1
+    return dxg
+
+
+lstm_recurrence_bwd_wide_mma.launches = 0
 
 
 def lstm_recurrence_bwd_mma(

@@ -60,14 +60,16 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
-                       "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage"}
+                       "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage",
+                       "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh",
-                                                           "bilstm_bwd_f32.cuh"}
+                                                           "bilstm_bwd_f32.cuh",
+                                                           "lstm_recurrence_wide_mma.cuh"}
     # every constant the wrappers check is exported by its source, and the
     # tensor-core kernels share the fragment header
     for name, (getters, want) in lstm_cuda._CONSTANTS.items():
@@ -96,6 +98,23 @@ def test_every_kernel_source_is_built_and_bound():
     assert '#include "bilstm_mma.cuh"' in text
     text = text.rsplit("#include", 1)[1]
     assert text.count("mma_bf16(") == 1 and "map_shared_rank(" in text and "launch_wide(" in text
+    # the bf16 recurrence kernels past 288 share their split, weight copy and
+    # gate product (mma_bf16 through lstm_recurrence_wide_mma.cuh, which
+    # includes the fragment header): both on 8-block clusters, the forward
+    # pushing h and the sweep reading the partial dh through distributed
+    # shared memory by mapped 32-bit addresses, the sweep's dh product on the
+    # same weight fragments transposed in registers
+    header = (_build.CSRC / "lstm_recurrence_wide_mma.cuh").read_text()
+    assert '#include "bilstm_mma.cuh"' in header and "mma_bf16(" in header
+    for name, exchange in (("lstm_recurrence_fwd_wide_mma", "st_dsmem_v4("),
+                           ("lstm_recurrence_bwd_wide_mma", "ld_dsmem_f2(")):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "lstm_recurrence_wide_mma.cuh"' in text
+        body = text.rsplit("#include", 1)[1]
+        assert "gate_mma<" in body and "launch_wide_dirs(" in body and exchange in body
+        assert "mapa_u32(" in body and "map_shared_rank(" not in body
+    body = (_build.CSRC / "lstm_recurrence_bwd_wide_mma.cu").read_text().rsplit("#include", 1)[1]
+    assert "movmatrix_trans(" in body and "mma_a4(" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, 288, and for the recurrence op up to 1024 threads with
     # its weight slices read from the global copy)

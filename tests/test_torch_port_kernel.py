@@ -331,6 +331,26 @@ def test_recurrence_wrappers_take_plain_versions_on_cpu(mask):
     assert torch.all(hs[0][off[0]] == 0)
 
 
+@pytest.mark.parametrize("H", [320, 512])
+def test_recurrence_wide_mma_wrappers_take_plain_versions_on_cpu(H):
+    """The bf16 tensor-core wrappers past 288 take the plain twins for CPU
+    tensors, counting no launch; ``lstm_recurrence_fwd`` and
+    ``lstm_recurrence_bwd`` hand bf16 past 288 to them only on the card."""
+    T, D, B, G, cd = 3, 2, 4, 2, torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
+                                                  "holes")
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_mma, lstm_cuda.lstm_recurrence_bwd_wide_mma)
+    before = [f.launches for f in wrappers]
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b) for a, b in
+               zip(lstm_cuda.lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd), want))
+    args = (xg, valid, w, want[0], want[1], dhs, dhn, dcn, G, cd)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd_wide_mma(*args), recurrence_sweep(*args))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd_wide_mma(xg, valid, w.clone().requires_grad_(), G, cd)
+
+
 def recurrence_at_width(Hp, xg, valid, w, G, dtype, dhs, dhn, dcn):
     """The plain forward and backward at Hp units (every gate block of
     ``xg`` and ``w`` grown by zero units, as ``fused_lstm_recurrence`` runs
@@ -552,20 +572,150 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
     (128, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.bfloat16, "lstm_recurrence_bwd"),
     (96, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.float32, "lstm_recurrence_bwd"),
     (96, torch.float32, "lstm_recurrence_bwd"), (128, torch.float32, "lstm_recurrence_bwd"),
-    (48, torch.bfloat16, None), (48, torch.float32, None), (64, torch.float16, None)])
+    (288, torch.bfloat16, "lstm_recurrence_bwd"), (288, torch.float32, "lstm_recurrence_bwd"),
+    (320, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
+    (512, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
+    (1024, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
+    (320, torch.float32, "lstm_recurrence_bwd"), (512, torch.float32, "lstm_recurrence_bwd"),
+    (1024, torch.float32, "lstm_recurrence_bwd"),
+    (48, torch.bfloat16, None), (48, torch.float32, None), (64, torch.float16, None),
+    (1056, torch.bfloat16, None)])
 def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     """bf16 at H = 32 / 64 takes the tensor-core sweep, f32 there its three
-    tf32 passes (whose pre-split weights fit one block), and the cluster
-    sweep keeps H >= 96 in either dtype."""
+    tf32 passes (whose pre-split weights fit one block); bf16 past 288 the
+    tensor-core sweep of the wide widths, up to the op's 1024 on the card;
+    the cluster sweep keeps the rest from H = 96 (f32 to 1024, bf16 to 288)."""
     if kernel is None:
         with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
             lstm_cuda.recurrence_sweep_kernel(H, dtype)
         return
     assert lstm_cuda.recurrence_sweep_kernel(H, dtype) == kernel
-    if kernel.endswith("mma"):
+    if kernel.endswith("_bwd_mma"):
         assert lstm_cuda.recurrence_mma_smem(H) <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
     if kernel.endswith("f32"):
         assert lstm_cuda.recurrence_f32_smem(H) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("wide_mma"):
+        assert min(lstm_cuda.recurrence_wide_mma_smem("bwd", H, R) for R in
+                   lstm_cuda.REC_WIDE_MMA_ROWS["bwd"][1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H,dtype,kernel", [
+    (32, torch.bfloat16, "lstm_recurrence_fwd"), (64, torch.float32, "lstm_recurrence_fwd"),
+    (256, torch.bfloat16, "lstm_recurrence_fwd"), (288, torch.bfloat16, "lstm_recurrence_fwd"),
+    (288, torch.float32, "lstm_recurrence_fwd"),
+    (320, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
+    (352, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
+    (512, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
+    (1024, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
+    (320, torch.float32, "lstm_recurrence_fwd"), (1024, torch.float32, "lstm_recurrence_fwd"),
+    (48, torch.bfloat16, None), (64, torch.float16, None), (1056, torch.bfloat16, None)])
+def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
+    """The forward's picker, by width and dtype alone: bf16 past 288 the
+    tensor-core forward, up to the op's 1024 on the card; the cluster
+    kernel for the rest; what neither takes is refused by the op's check."""
+    if kernel is None:
+        with pytest.raises(ValueError, match="H % 32 == 0"):
+            lstm_cuda.recurrence_fwd_kernel(H, dtype)
+        return
+    assert lstm_cuda.recurrence_fwd_kernel(H, dtype) == kernel
+
+
+def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
+    """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
+    and bf16 names the forward, sweep and wgrad it named before the
+    tensor-core kernels past 288, except the bf16 forward and sweep there;
+    what was refused stays refused."""
+    def parent(H, dtype):
+        sweep = "lstm_recurrence_bwd"
+        if H in (32, 64):
+            sweep = "lstm_recurrence_bwd_mma" if dtype == torch.bfloat16 \
+                else "lstm_recurrence_bwd_f32"
+        wgrad = "lstm_recurrence_wgrad_mma" if dtype == torch.bfloat16 \
+            else "lstm_recurrence_wgrad"
+        return "lstm_recurrence_fwd", sweep, wgrad
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in range(32, 1025):
+            pick = (lstm_cuda.recurrence_fwd_kernel, lstm_cuda.recurrence_sweep_kernel,
+                    lstm_cuda.recurrence_wgrad_kernel)
+            if H % 32:
+                for f in pick:
+                    with pytest.raises(ValueError, match="H % 32 == 0"):
+                        f(H, dtype)
+                continue
+            want = parent(H, dtype)
+            if dtype == torch.bfloat16 and H > 288:
+                want = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma", want[2])
+            assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
+
+
+@pytest.mark.parametrize("H,kind,want", [
+    (320, "fwd", {16: 22528, 32: 45056, 48: 67584, 80: 112640}),
+    (512, "fwd", {16: 35584, 32: 71168, 48: 106752, 80: 177920}),
+    (1024, "fwd", {16: 70400, 32: 140800}),
+    (320, "bwd", {16: 67072, 32: 123904}),
+    (512, "bwd", {16: 107008, 32: 197632}),
+    (1024, "bwd", {16: 213504})])
+def test_recurrence_wide_mma_smem_and_plan(H, kind, want):
+    """The shared memory of the bf16 tensor-core recurrence kernels past 288
+    by row tile, as their sources lay it out (fwd: two bf16 h tiles and the
+    staged new h; bwd: the f32 h_prev tile, its bf16 rounding, the dgates
+    tile and the f32 partial dh of all units); the plan takes the fewest
+    waves, then the smallest tile that fits; past 1024 (the stop) and for a
+    tile with no instance they refuse."""
+    rows = lstm_cuda.REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]
+    assert {R: lstm_cuda.recurrence_wide_mma_smem(kind, H, R) for R in rows} == want
+    fits = [R for R, b in want.items() if b <= lstm_cuda.SMEM_LIMIT]
+    # the train step's shape on a card holding 15 clusters at once: 400 rows in 5 groups, D = 2
+    R, tiles, smem = lstm_cuda.wide_plan(f"rec_{kind}_mma", 400, 5, H, lambda R, b: 15, 2)
+    waves = {r: -(-2 * 5 * -(-80 // r) // 15) for r in fits}
+    assert waves[R] == min(waves.values()) and R == min(r for r in fits if waves[r] == waves[R])
+    assert tiles == 5 * -(-80 // R) and smem == want[R] <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_plan(f"rec_{kind}_mma", 40, 5, H, lambda R, b: 15, 2)[0] == 16
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        lstm_cuda.recurrence_wide_mma_smem(kind, H + 544 if H == 512 else 1056, 16)
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        lstm_cuda.recurrence_wide_mma_smem(kind, 288, 16)
+    with pytest.raises(ValueError, match="no instance for a row tile of 24"):
+        lstm_cuda.recurrence_wide_mma_smem(kind, H, 24)
+
+
+def test_recurrence_mma_weights_layout():
+    """The weight copy both bf16 tensor-core kernels past 288 read, held
+    against the mma.sync A-fragment layout: lane 4 g + t of (group, k16
+    step kk, m16 half mt) holds rows g, g + 8 of the group's permuted gate
+    rows (row 8 * gate + unit % 8) at columns 2t, 2t + 1 and 2t + 8, 2t + 9
+    of the k16 step; and the same fragment transposed 8x8 by 8x8 (as
+    movmatrix does in the sweep) is the A fragment of w's rows (units) by
+    those gate columns."""
+    torch.manual_seed(0)
+    D, G, H = 2, 3, 352
+    w = torch.randn(D, G, H, 4 * H).to(torch.bfloat16)
+    wf = lstm_cuda.recurrence_mma_weights(w)
+    assert wf.shape == (D, G, H // 8, H // 16, 2, 32, 8) and wf.dtype == torch.bfloat16
+
+    def col(p):  # permuted gate row of the whole layer -> w's column
+        group, pl = divmod(p, 32)
+        return (pl // 8) * H + 8 * group + pl % 8
+
+    def frag(A, lane):  # the A fragment of a 16x16 block, registers in mma order
+        g, t = divmod(lane, 4)
+        return torch.stack([A[g, 2 * t], A[g, 2 * t + 1], A[g + 8, 2 * t], A[g + 8, 2 * t + 1],
+                            A[g, 2 * t + 8], A[g, 2 * t + 9], A[g + 8, 2 * t + 8],
+                            A[g + 8, 2 * t + 9]])
+
+    for d, g_, group, kk, mt in ((0, 0, 0, 0, 0), (1, 2, 43, 21, 1), (0, 1, 17, 5, 1)):
+        rows = [col(32 * group + 16 * mt + r) for r in range(16)]
+        A = w[d, g_, 16 * kk:16 * kk + 16][:, rows].T  # [gate row][input]
+        for lane in range(32):
+            assert torch.equal(wf[d, g_, group, kk, mt, lane], frag(A, lane))
+            # the transposed use: register r of the dh product's fragment is
+            # 8x8 block (0, 2, 1, 3)[r] of the gate fragment, transposed
+            got = wf[d, g_, group, kk, mt].reshape(32, 4, 2)
+            g, t = divmod(lane, 4)
+            blocks = [got[:, q].reshape(8, 4, 2).reshape(8, 8) for q in (0, 2, 1, 3)]
+            assert torch.equal(torch.cat([b.T[g, 2 * t:2 * t + 2] for b in blocks]),
+                               frag(A.T, lane))
 
 
 
@@ -2472,7 +2622,10 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, dtype, cuda_device, "holes",
                                                   seed=H)
-    before = lstm_cuda.lstm_recurrence_fwd.launches
+    # the launch counts on the wrapper of the forward the dispatch names (bf16
+    # past 288: the tensor-core one)
+    fwd = getattr(lstm_cuda, lstm_cuda.recurrence_fwd_kernel(Hp, dtype))
+    before = fwd.launches
     outs, grads = [], []
     for dev in (cuda_device, torch.device("cpu")):
         xg_r = xg.to(dev).clone().requires_grad_()
@@ -2482,7 +2635,7 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
         outs.append([t.detach().cpu() for t in out])
         grads.append([xg_r.grad.cpu(), w_r.grad.cpu()])
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_fwd.launches == before + 1
+    assert fwd.launches == before + 1
     _close(outs[0], outs[1], tol)
     _close(grads[0], grads[1], tol)
 
@@ -2567,6 +2720,105 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D,G,B,T,mask", [
+    (320, 2, 2, 16, 12, "lengths"), (320, 1, 5, 30, 9, "holes"), (352, 3, 1, 9, 7, "holes"),
+    (512, 2, 5, 50, 10, "lengths"), (512, 3, 2, 20, 7, "holes"), (512, 2, 1, 10, 1, "holes"),
+    (512, 1, 1, 81, 5, "off"), (512, 2, 5, 400, 3, "lengths"), (1024, 2, 2, 12, 6, "holes"),
+    (992, 2, 1, 9, 5, "lengths"), (1024, 1, 5, 10, 1, "off")])
+def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B, T, mask):
+    """The bf16 tensor-core forward and sweep past 288 against their plain
+    twins at 2^-7 x max(1, max|ref|): D = 1, 2 and 3; G = 1, 2 and 5; masks
+    from lengths, with holes (an all-off and an all-on row) and all off;
+    T = 1; groups of 8, 6, 9, 10, 80 and 81 rows, which leave short row
+    tiles; the sweep with dhs and dcn None, and with all three None. The
+    dispatch names them (their wrappers count the launches), and the
+    global-weight instance by name agrees at the repo's bf16 tolerance."""
+    cd, tol = torch.bfloat16, 2.0 ** -7
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
+                                                  "holes" if mask == "off" else mask, seed=H + T)
+    if mask == "off":
+        valid = torch.zeros_like(valid)
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_wide_mma"
+    assert lstm_cuda.recurrence_sweep_kernel(H, cd) == "lstm_recurrence_bwd_wide_mma"
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_mma, lstm_cuda.lstm_recurrence_bwd_wide_mma,
+                lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    ref = recurrence_fwd(xg, valid, w, G, cd)
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd), ref, tol)
+    hs, cs = ref[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    dxg = recurrence_sweep(*args)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args)], [dxg], tol)
+    for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
+                 (xg, valid, w, hs, cs, None, None, None, G, cd)):
+        _close([lstm_cuda.lstm_recurrence_bwd_wide_mma(*part)], [recurrence_sweep(*part)], tol)
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
+           ref, 3e-2)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [dxg], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 3, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [320, 512])
+def test_recurrence_wide_mma_autograd_on_card(cuda_device, H):
+    """``fused_lstm_recurrence`` in bf16 past 288 on the card, through the
+    tensor-core forward and sweep and the tensor-core wgrad: outputs and the
+    gradients of xg and w equal the CPU plain path's (3e-2 x max(1,
+    max|ref|), the repo's bf16 tolerance for the op's gradients: the
+    gate cotangents are rounded to bf16 for dW on both sides, in another
+    order of sums)."""
+    T, D, B, G, cd = 10, 2, 12, 2, torch.bfloat16
+    cpu = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes", seed=H)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_mma, lstm_cuda.lstm_recurrence_bwd_wide_mma,
+                lstm_cuda.lstm_recurrence_wgrad_mma)
+    before = [f.launches for f in wrappers]
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xg, valid, w, dhs, dhn, dcn = (t.to(dev) for t in cpu)
+        xg.requires_grad_(), w.requires_grad_()
+        out = fused_lstm_recurrence(xg, valid, w, G, cd)
+        torch.autograd.backward(out, [dhs, dhn, dcn])
+        got[dev.type] = [xg.grad.cpu(), w.grad.cpu(), *(o.detach().cpu() for o in out)]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+    _close(got["cuda"], got["cpu"], 3e-2)
+
+
+@pytest.mark.cuda
+def test_recurrence_wide_mma_rejects_bad_operands_on_card(cuda_device):
+    """The tensor-core wrappers past 288 refuse what their kernels do not
+    take, before any launch: another compute dtype, a width up to 288, a
+    weight of the wrong shape or dtype, a mask of the wrong shape, an
+    unknown kernel name, and operands that require grad."""
+    T, D, B, G, H = 3, 2, 4, 1, 320
+    cd = torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, "holes")
+    hs = torch.zeros(T, D, B, H, device=cuda_device)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_mma, lstm_cuda.lstm_recurrence_bwd_wide_mma)
+    before = [f.launches for f in wrappers]
+    with pytest.raises(ValueError, match="take compute dtype bfloat16"):
+        lstm_cuda.lstm_recurrence_fwd_wide_mma(xg, valid, w.float(), G, torch.float32)
+    small = recurrence_case(T, D, B, 288, G, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        lstm_cuda.lstm_recurrence_fwd_wide_mma(*small[:3], G, cd)
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        lstm_cuda.lstm_recurrence_bwd_wide_mma(*small[:3], small[3], small[3], None, None, None,
+                                               G, cd)
+    with pytest.raises(ValueError, match="bilstm kernel: w"):
+        lstm_cuda.lstm_recurrence_fwd_wide_mma(xg, valid, w.float(), G, cd)
+    with pytest.raises(ValueError, match="valid must be"):
+        lstm_cuda.lstm_recurrence_bwd_wide_mma(xg, valid[:, :1], w, hs, hs, None, None, None,
+                                               G, cd)
+    with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_mma")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_wide_mma(xg.clone().requires_grad_(), valid, w, hs, hs,
+                                               None, None, None, G, cd)
+    assert [f.launches for f in wrappers] == before
 
 
 @pytest.mark.cuda
