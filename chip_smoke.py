@@ -85,7 +85,11 @@ exits non-zero with no result):
    CUDA-core wide forward (both variants) and lite sweep in bf16 at their
    main paths' shapes (layer 0 at embedding 272, their 288-thread
    instances, and the stacked layer at embedding 80, run at H = 96)
-   against their twins, timed beside their bounds and cuDNN; then a
+   against their twins, timed beside their bounds and cuDNN; at 288 the
+   tensor-core lite sweep ``bilstm_bwd_lite_mma`` (its instance for
+   uneven unit groups), which the dispatch names there, against its twin
+   and timed in turns with the 288-thread CUDA-core sweep by name (new,
+   old, old, new); then a
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
@@ -146,9 +150,13 @@ exits non-zero with no result):
    kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``) against its twins, the
    bf16 tensor-core kernels alone at H = 320, 512 and 1024 with masks from
    lengths and with holes (2^-7 x max(1, max|ref|)) beside the
-   global-weight instance by name, and one call at H = 512 (400 rows,
-   T = 300) timed beside its bound and cuDNN, in bf16 the tensor-core
-   kernels and the global-weight instance in turns (new, old, old, new);
+   global-weight instance by name, the f32 tensor-core sweep
+   ``lstm_recurrence_bwd_wide_f32`` (three tf32 passes) alone at the same
+   widths and masks (1e-4 x max(1, max|ref|)) beside the global-weight
+   instance by name, and one call at H = 512 (400 rows, T = 300) timed
+   beside its bound and cuDNN, the tensor-core kernels and the
+   global-weight instance in turns (new, old, old, new; in f32 the
+   sweep), the f32 sweep's bound at 495/3 TFLOP/s beside the one at 67;
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -156,12 +164,13 @@ exits non-zero with no result):
    CUDA-core wgrad and the layer kernels 0; then 2 f32 steps (and a
    profiled one), whose sweep and wgrad must be ``lstm_recurrence_bwd_f32``
    and the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
-   embedding 128, whose sweep only the cluster kernel takes; a profiled
-   step, peak memory, and the card's gradients against the CPU's on the
+   embedding 128, whose sweep only the cluster kernel takes, and 2 f32 steps
+   of a one-layer model at embedding 320, whose sweep only the f32
+   tensor-core sweep past 288 takes; a profiled step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16, and of a one-layer model at embedding
-   320 (in f32 the forward and the cluster sweep on their global-weight
-   instance; in bf16 the tensor-core kernels past 288, and never the
-   global-weight instance);
+   320 (in f32 the forward on its global-weight instance and the f32
+   tensor-core sweep, never the cluster sweep; in bf16 the tensor-core
+   kernels past 288, and never the global-weight instance);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -169,11 +178,12 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (twenty-nine kernels, each with launches > 0 on
-    a main path; the 288-thread instances, the bf16 wgrad at H = 80 and
-    the f32 recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*``
-    fields of their kernels' entries; the bf16 op past 288 as entries of
-    its own), the card's name and power limit, and the result.
+11. the ``kernels`` line (thirty kernels, each with launches > 0 on a
+    main path; the 288-thread instances, the tensor-core lite sweep at
+    288, the bf16 wgrad at H = 80 and the f32 recurrence op past 288 as
+    ``h288_*``, ``h80_*`` and ``h512_*`` fields of their kernels' entries;
+    the bf16 op past 288 and the f32 sweep past 288 as entries of their
+    own), the card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -229,7 +239,9 @@ def phase_build() -> dict:
         FWD_WIDE_MMA_WIDTHS,
         GATES_MMA_SMEM,
         LITE_MMA_ROWS,
+        LITE_MMA_UNEVEN_ROWS,
         REC_WGRAD_MMA_SMEM,
+        REC_WIDE_F32_ROWS,
         REC_WIDE_MMA_ROWS,
         SMEM_LIMIT,
         WGRAD_F32_SMEM,
@@ -244,6 +256,7 @@ def phase_build() -> dict:
         launch_plan,
         recurrence_f32_smem,
         recurrence_mma_smem,
+        recurrence_wide_f32_smem,
         recurrence_wide_mma_smem,
         wide_smem,
     )
@@ -282,8 +295,8 @@ def phase_build() -> dict:
     smem["wgrad_f32"] = WGRAD_F32_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     smem["gates_mma"] = GATES_MMA_SMEM
-    for H in (128, E_SCALED):
-        for rows in LITE_MMA_ROWS:
+    for H in (128, E_SCALED, 288):
+        for rows in LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS:
             if wide_smem("lite_mma", H, rows) <= SMEM_LIMIT:
                 smem[f"bwd_lite_mma H={H} rows={rows}"] = wide_smem("lite_mma", H, rows)
     for H in FWD_WIDE_MMA_WIDTHS:
@@ -301,6 +314,10 @@ def phase_build() -> dict:
             for rows in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
                 smem[f"recurrence_{kind}_wide_mma H={H} rows={rows}"] = \
                     recurrence_wide_mma_smem(kind, H, rows)
+            # the f32 tensor-core sweep past 288
+            for rows in REC_WIDE_F32_ROWS[1 if H <= 512 else 2] if kind == "bwd" else ():
+                smem[f"recurrence_bwd_wide_f32 H={H} rows={rows}"] = \
+                    recurrence_wide_f32_smem(H, rows)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -734,7 +751,7 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 
 # the f32 kernels on the tensor cores: three tf32 products for each f32 one
 TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
-           "bilstm_bwd_f32_onestage")
+           "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -1228,7 +1245,8 @@ def train_counters():
             "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad,
             "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma,
             "lstm_recurrence_fwd_wide_mma": L.lstm_recurrence_fwd_wide_mma,
-            "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma}
+            "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma,
+            "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1363,12 +1381,15 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
                         "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel",
-                        "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel"),
+                        "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
+                        "lstm_recurrence_fwd_wide_mma_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
                           "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
                           "bilstm_bwd_mma_kernel", "bilstm_bwd_lite_mma_kernel",
-                          "lstm_recurrence_bwd_mma_kernel"),
+                          "bilstm_bwd_lite_mma_uneven_kernel",
+                          "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
+                          "lstm_recurrence_bwd_wide_f32_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1457,19 +1478,21 @@ RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
 # and the stacked layer at embedding 112 (128, wide), layer 0 at embedding
 # 50 (H 64, E 56 in f32 and 64 in bf16, resident), both layers at embedding
 # 100 (H 128, parts of 112, wide) and at 272 (288, wide: the 288-thread
-# CUDA-core wide kernels in bf16 and f32)
+# CUDA-core wide kernels in f32, and in bf16 the forward, the sweep being
+# the tensor-core one)
 PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 112, G_TRAIN),
                  (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
                  (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
 # the wide route's kernels, by dtype (the tensor-core ones at 128 and 256;
-# at 96 and 288 the CUDA-core forward and sweep in bf16 too)
+# in bf16 at 96 the CUDA-core forward and sweep, at 288 the CUDA-core
+# forward and the tensor-core sweep)
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
             "bilstm_wgrad_f32")
 WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                 "bilstm_bwd_lite", "bilstm_wgrad_mma")
+                 "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch
 WIDTH_STEPS = (
@@ -1577,20 +1600,25 @@ def padded_layer_timings(dev) -> list:
 
 
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
-                           seed=SEED + 50) -> dict:
+                           seed=SEED + 50, lite_want="bilstm_bwd_lite_mma") -> dict:
     """The CUDA-core wide forward (both variants) and lite sweep in bf16 at
-    the widths no tensor-core wide kernel takes, at their main paths'
+    the widths no tensor-core wide forward takes, at their main paths'
     shapes: by default layer 0 of the bf16 two-layer model at embedding
     272 (E = 272, run at H = 288: their 288-thread instances, 5 weight
     groups, two dy streams a direction), and (``E_parts`` (80, 80), H = 80,
     G = 1, ny = 1, run at 96) the stacked layer of the bf16 two-layer model
     at embedding 80; 400 rows, T = 1500, the input gates from
-    ``bilstm_gates_mma``. Each held against its plain twin with the main
-    path's lengths, then timed at full lengths beside the twin (timed once,
-    in the check), its bound at the bf16 rate at the padded H (the kernel's
+    ``bilstm_gates_mma``. The sweep the dispatch names must be
+    ``lite_want``: at 288 the tensor-core ``bilstm_bwd_lite_mma``, which
+    is then held and timed too ("lite_mma"), in turns with the CUDA-core
+    sweep by name (new, old, old, new); at 96 the CUDA-core one. Each held
+    against its plain twin with the main path's lengths (the tolerance
+    ``TOL``), then timed at full lengths beside the twin (timed once, in
+    the check), its bound at the bf16 rate at the padded H (the kernel's
     own work) and at the true H, and cuDNN's one-layer bf16 training
     forward, inference forward and backward for the input at the true
-    widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"."""
+    widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite" (the
+    CUDA-core sweep, by name) and at 288 "lite_mma"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
@@ -1598,14 +1626,16 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     E = sum(E_parts)
     Hp = L.padded_width(E_parts, H, cd)
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
-    if picked != (Hp_want, "bilstm_fwd_wide", "bilstm_bwd_lite"):
+    if picked != (Hp_want, "bilstm_fwd_wide", lite_want):
         raise AssertionError(f"the layer at E={E_parts}, H={H} in bf16 runs {picked}")
+    mma = lite_want == "bilstm_bwd_lite_mma"
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
              "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k: {"kernel": name, **shape} for k, name in (
         ("fwd", "bilstm_fwd_wide (train)"), ("fwd_eval", "bilstm_fwd_wide (eval)"),
-        ("lite", "bilstm_bwd_lite"))}
+        ("lite", "bilstm_bwd_lite"), ("lite_mma", "bilstm_bwd_lite_mma"))
+        if mma or k != "lite_mma"}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
@@ -1614,10 +1644,23 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                  "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
-        calls["lite"] = lambda: L.bilstm_bwd_lite(*args)
+        calls["lite"] = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
+        if mma:
+            calls["lite_mma"] = lambda: L.bilstm_bwd_lite(*args)
         if full:
             for k, call in calls.items():
-                out[k]["ms"] = time_ms(call, 3)
+                if not mma or k not in ("lite", "lite_mma"):
+                    out[k]["ms"] = time_ms(call, 3)
+            if mma:
+                # new, old, old, new: the tensor-core sweep and the CUDA-core one
+                out["lite_mma"]["ms"], out["lite_mma"]["ms_again"], out["lite"]["ms"] = in_turns(
+                    calls["lite_mma"], calls["lite"], 3)
+                out["lite_mma"]["cuda_core_ms"] = out["lite"]["ms"]
+                out["lite_mma"]["rows"], out["lite_mma"]["tiles"], _ = L.wide_plan(
+                    "lite_mma", B_TRAIN, G, Hp, L._max_clusters("bilstm_bwd_lite_mma", cd, Hp, dev))
+                out["lite_mma"]["max_active_clusters"] = {
+                    f"rows={k[3]}": v for k, v in L._cluster_counts.items()
+                    if k[0] == "bilstm_bwd_lite_mma" and k[2] == Hp}
         else:
             want, out["fwd"]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
@@ -1629,6 +1672,9 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                    "fwd_eval": {n: rel_err(a, b, TOL[cd])
                                 for n, a, b in zip(names, calls["fwd_eval"](), want)},
                    "lite": {"dgates": rel_err(calls["lite"](), ref, TOL[cd])}}
+            if mma:
+                res["lite_mma"] = {"dgates": rel_err(calls["lite_mma"](), ref, TOL[cd])}
+                out["lite_mma"]["plain_ms"] = out["lite"]["plain_ms"]
             torch.cuda.synchronize()
             for k, r in res.items():
                 out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
@@ -1641,11 +1687,12 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
         work = wide_layer_work(E, Hw, G, 2, ny)
         for k in out:
             out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
-                [(*work[k], kernel_peak(cd))])
+                [(*work[k.replace("_mma", "")], kernel_peak(cd))])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
-                   ("lite", "cudnn_bwd_data_ms")):
-        out[k]["library_ms"] = lib[key]
+                   ("lite", "cudnn_bwd_data_ms"), ("lite_mma", "cudnn_bwd_data_ms")):
+        if k in out:
+            out[k]["library_ms"] = lib[key]
     return out
 
 
@@ -1655,8 +1702,9 @@ def phase_widths(dev) -> dict:
     embedding 100 at the train shape (80 pairs, T = 1500, dropout on, 2
     steps and an eval step) in f32 and bf16 and one at embedding 272 in
     bf16 (its steps timed), each with the kernels it launched;
-    ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288) and at
-    embedding 80's stacked layer (H = 96); then for each of ``WIDTH_STEPS`` one gradient
+    ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, with the
+    tensor-core lite sweep) and at embedding 80's stacked layer (H = 96);
+    then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
     kernels launched (on the recurrence backend with
@@ -1677,7 +1725,8 @@ def phase_widths(dev) -> dict:
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
     kernels_288 = wide_cuda_core_kernels(dev)
-    kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51)
+    kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
+                                        "bilstm_bwd_lite")
     steps = []
     for backend, width, dtype, expect in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -2107,7 +2156,29 @@ def phase_wide_kernel(dev) -> dict:
                 lambda: bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True))[1])
             add("fwd_eval_plain_ms", timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, dtype))[1])
-            add("lite_plain_ms", timed_once(lambda: bidir_layer_sweep_lite(*lite_args))[1])
+            lite_ref, lite_plain_ms = timed_once(lambda: bidir_layer_sweep_lite(*lite_args))
+            add("lite_plain_ms", lite_plain_ms)
+            if bf16:
+                # H = 288's instance for uneven unit groups at this width (4
+                # groups a block), held against the twin and timed in turns
+                # with this width's kernel: whether one kernel could serve both
+                uneven = lambda: L.bilstm_bwd_lite_mma(*lite_args, uneven=True)  # noqa: E731
+                e, ok = rel_err(uneven(), lite_ref, TOL[dtype])
+                torch.cuda.synchronize()
+                t["lite_uneven_max_abs_err"] = max(e, t.get("lite_uneven_max_abs_err", 0.0))
+                if not ok:
+                    emit({"phase": "wide_kernel", "failed": {
+                        "kernel": "bilstm_bwd_lite_mma (uneven)", "H": H, "E_parts": E_parts,
+                        "max_abs_err": e, "tol": f"{TOL[dtype]} x max(1, max|ref|)"}})
+                    raise AssertionError(f"the uneven lite sweep at H={H} disagrees: {e}")
+                a, b, c = in_turns(uneven, lambda: L.bilstm_bwd_lite_mma(*lite_args), 3)
+                add("lite_uneven_ms", a)
+                add("lite_uneven_ms_again", b)
+                add("lite_even_ms", c)
+                t["lite_uneven_rows"] = L.wide_plan(
+                    "lite_mma_uneven", B_TRAIN, G, H,
+                    L._max_clusters("bilstm_bwd_lite_mma", dtype, H, dev))[0]
+            del lite_ref
             add("wgrad_plain_ms", timed_once(
                 lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))[1])
             # yardsticks the port never calls, in the same dtype: one cuBLAS
@@ -2417,13 +2488,17 @@ def recurrence_past_288(dev) -> dict:
     twins (``checks``). Then the bf16 tensor-core kernels alone at H = 320,
     512 and 1024, masks from lengths and masks with holes, against their
     twins at 2^-7 x max(1, max|ref|), and the global-weight instance by name
-    on the same operands (``wide_mma_checks``). Then one call of each at
+    on the same operands (``wide_mma_checks``); the f32 tensor-core sweep
+    ``lstm_recurrence_bwd_wide_f32`` alone at the same widths and masks
+    against its twin at 1e-4 x max(1, max|ref|), and the global-weight
+    instance by name (``wide_f32_checks``). Then one call of each at
     H = 512, 400 rows in 5 groups, T = 300, full-length masks, timed beside
     its plain twin (timed once, in the check), its bound (f32 CUDA cores in
-    f32, the bf16 rate in bf16) and cuDNN's one-layer bidirectional LSTM at
-    that width in the same dtype, TF32 off; in bf16 the tensor-core kernels
-    and the global-weight instance by name in turns (new, old, old, new), and
-    the clusters the card holds at once (``h512``)."""
+    f32, the f32 sweep also at 495/3 TFLOP/s for its three tf32 passes; the
+    bf16 rate in bf16) and cuDNN's one-layer bidirectional LSTM at that
+    width in the same dtype, TF32 off; the tensor-core kernels (in f32 the
+    sweep) and the global-weight instance by name in turns (new, old, old,
+    new), and the clusters the card holds at once (``h512``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -2431,7 +2506,7 @@ def recurrence_past_288(dev) -> dict:
         recurrence_wgrad,
     )
 
-    checks, wide_mma_checks, h512 = [], [], {}
+    checks, wide_mma_checks, wide_f32_checks, h512 = [], [], [], {}
     for H in (288, 512, 1024):
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[dtype]
@@ -2487,6 +2562,50 @@ def recurrence_past_288(dev) -> dict:
                 emit({"phase": "recurrence_kernel", "failed": check})
                 raise AssertionError(f"a bf16 recurrence kernel past 288 disagrees: {check}")
             del xg, valid, w, dhs, ref, args, dxg
+    cd, tol = torch.float32, TOL[torch.float32]
+    for H in (320, 512, 1024):
+        for mask in ("lengths", "holes"):
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(64, H, 2, cd, dev, mask,
+                                                            SEED + 11 * H, B=16)
+            hs, cs = recurrence_fwd(xg, valid, w, 2, cd)[:2]
+            args = (xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd)
+            dxg = recurrence_sweep(*args)
+            res = {"dxg": rel_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg, tol)}
+            old = {"dxg": rel_err(L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
+                                  dxg, tol)}
+            torch.cuda.synchronize()
+            check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": mask,
+                     "dtype": "float32", "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "scaled_err": scaled_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg),
+                     "tol": f"{tol} x max(1, max|ref|)",
+                     "global_weights_max_abs_err": {n: e for n, (e, _) in old.items()}}
+            wide_f32_checks.append(check)
+            if not all(ok for _, ok in list(res.values()) + list(old.values())):
+                emit({"phase": "recurrence_kernel", "failed": check})
+                raise AssertionError(f"the f32 recurrence sweep past 288 disagrees: {check}")
+            del xg, valid, w, dhs, hs, cs, args, dxg
+    # the same at the main path's rows (400 in 5 groups: the row tile the
+    # embedding-320 f32 model and the timed call below run), short T
+    for H in (320, 512):
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(16, H, G_TRAIN, cd, dev, "holes",
+                                                        SEED + 13 * H)
+        hs, cs = recurrence_fwd(xg, valid, w, G_TRAIN, cd)[:2]
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G_TRAIN, cd)
+        dxg = recurrence_sweep(*args)
+        got = L.lstm_recurrence_bwd_wide_f32(*args)
+        e, ok = rel_err(got, dxg, tol)
+        torch.cuda.synchronize()
+        check = {"B": B_TRAIN, "T": 16, "D": D_REC, "H": H, "G": G_TRAIN, "mask": "holes",
+                 "dtype": "float32", "rows": L.wide_plan(
+                     "rec_bwd_f32", B_TRAIN, G_TRAIN, H, L._max_clusters(
+                         "lstm_recurrence_bwd_wide_f32", cd, H, dev), D_REC)[0],
+                 "max_abs_err": {"dxg": e}, "scaled_err": scaled_err(got, dxg),
+                 "tol": f"{tol} x max(1, max|ref|)"}
+        wide_f32_checks.append(check)
+        if not ok:
+            emit({"phase": "recurrence_kernel", "failed": check})
+            raise AssertionError(f"the f32 recurrence sweep past 288 disagrees: {check}")
+        del xg, valid, w, dhs, hs, cs, args, dxg, got
     H, G, T = 512, G_TRAIN, 300
     for dtype in (torch.float32, torch.bfloat16):
         size = torch.empty((), dtype=dtype).element_size()
@@ -2502,12 +2621,20 @@ def recurrence_past_288(dev) -> dict:
              "dtype": str(dtype).replace("torch.", ""),
              "fwd": L.recurrence_fwd_kernel(H, dtype), "sweep": L.recurrence_sweep_kernel(H, dtype),
              "wgrad": L.recurrence_wgrad_kernel(H, dtype),
-             "max_abs_err": {"hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, G, dtype)[0],
-                                           hs, TOL[dtype])[0],
-                             "dxg": rel_err(L.lstm_recurrence_bwd(*args), dxg, TOL[dtype])[0]},
+             "tol": f"{TOL[dtype]} x max(1, max|ref|)",
              "wgrad_ms": time_ms(lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype), 3),
              "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
              "wgrad_plain_ms": wgrad_plain_ms}
+        res = {"hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, G, dtype)[0], hs, TOL[dtype]),
+               "dxg": rel_err(L.lstm_recurrence_bwd(*args), dxg, TOL[dtype])}
+        if dtype == torch.float32:
+            res["dxg_global_weights"] = rel_err(
+                L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, TOL[dtype])
+        torch.cuda.synchronize()
+        t["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "recurrence_kernel", "failed": t})
+            raise AssertionError(f"the recurrence op at H={H}, {B_TRAIN} rows disagrees: {t}")
         fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype)  # noqa: E731
         bwd = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
         if dtype == torch.bfloat16:
@@ -2527,13 +2654,29 @@ def recurrence_past_288(dev) -> dict:
                 if k[0].endswith("_wide_mma") and k[2] == H}
             add_bounds(t, recurrence_work(T, H, G, size), dtype)
         else:
-            t["fwd_ms"], t["bwd_ms"] = time_ms(fwd, 3), time_ms(bwd, 3)
-            add_bounds(t, recurrence_work(T, H, G, size), torch.float32,
-                       {"wgrad": kernel_peak(dtype)})
+            t["fwd_ms"] = time_ms(fwd, 3)
+            # new, old, old, new: the f32 tensor-core sweep and the
+            # global-weight instance by name, in one run on one card
+            t["bwd_ms"], t["bwd_ms_again"], t["bwd_global_weights_ms"] = in_turns(
+                bwd, lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), 3)
+            t["bwd_global_weights_max_abs_err"] = t["max_abs_err"].pop("dxg_global_weights")
+            name = "lstm_recurrence_bwd_wide_f32"
+            t["plans"] = {"bwd": dict(zip(("rows", "tiles", "smem"), L.wide_plan(
+                "rec_bwd_f32", B_TRAIN, G, H, L._max_clusters(name, dtype, H, dev), D_REC)))}
+            t["max_active_clusters"] = {
+                f"{k[0]} H={k[2]} rows={k[3]}": v for k, v in L._cluster_counts.items()
+                if k[0] == name and k[2] == H}
+            work = recurrence_work(T, H, G, size)
+            # the sweep at 495/3 TFLOP/s (three tf32 passes); the forward and
+            # wgrad, and the sweep's global-weight instance, at 67 (CUDA cores)
+            add_bounds(t, work, torch.float32, {"bwd": kernel_peak(dtype, name)})
+            t["bwd_cuda_core_bound_ms"], t["bwd_cuda_core_bound_by"] = bound(
+                [(*work["bwd"], PEAK_F32_FLOPS)])
         del xg, valid, w, dhs, ref, hs, cs, args, dxg
         t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev, dtype=dtype)
         h512[t["dtype"]] = t
-    return {"checks": checks, "wide_mma_checks": wide_mma_checks, "h512": h512}
+    return {"checks": checks, "wide_mma_checks": wide_mma_checks,
+            "wide_f32_checks": wide_f32_checks, "h512": h512}
 
 
 def phase_recurrence_kernel(dev) -> dict:
@@ -2712,19 +2855,30 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                                 ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
                                  "lstm_recurrence_wgrad_mma") + layer_kernels,
                                 embedding_size=128, rnn_num_layers=1)
+        # a one-layer f32 model at embedding 320 at the train shape: the
+        # forward on its global-weight instance, the f32 tensor-core sweep
+        f32_320 = f32_steps(dev, batches,
+                            ("lstm_recurrence_fwd", "lstm_recurrence_bwd_wide_f32",
+                             "lstm_recurrence_wgrad"),
+                            ("lstm_recurrence_bwd", "lstm_recurrence_bwd_mma",
+                             "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma",
+                             "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
+                            + layer_kernels, embedding_size=320, rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
-        # a one-layer model at embedding 320: in f32 the forward and the
-        # cluster sweep past 288 on their global-weight instance, in bf16 the
-        # tensor-core kernels past 288 and never the global-weight instance
+        # a one-layer model at embedding 320: in f32 the forward past 288 on
+        # its global-weight instance and the f32 tensor-core sweep, never the
+        # cluster sweep; in bf16 the tensor-core kernels past 288 and never
+        # the global-weight instance
         old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
         wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
         grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
             dev, dtype=dtype, eval_step=True, expect=expect, never=never, embedding_size=320,
             rnn_num_layers=1)
             for dtype, expect, never in (
-                (torch.float32, old + ("lstm_recurrence_wgrad",), wide),
+                (torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd_wide_f32",
+                                 "lstm_recurrence_wgrad"), wide + ("lstm_recurrence_bwd",)),
                 (torch.bfloat16, wide + ("lstm_recurrence_wgrad_mma",), old))}
     finally:
         lstm.DEFAULT_BACKEND = "auto"
@@ -2735,7 +2889,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
            "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
-           "float32_steps_embedding_128": f32_cluster, "grad_check": grad_check,
+           "float32_steps_embedding_128": f32_cluster, "float32_steps_embedding_320": f32_320,
+           "grad_check": grad_check,
            "grad_check_bf16": grad_check_bf16, "grad_check_embedding_320": grad_check_320}
     emit(out)
     return out
@@ -3171,7 +3326,13 @@ def main() -> int:
                               "two-layer model at embedding 272 (E=272, run at H=288), bf16, "
                               "400 rows, T=1500, bound at H=288 (true_bound_ms at 272), "
                               "launches in that model's steps, library: cuDNN one-layer bf16 "
-                              "at E=H=272")
+                              "at E=H=272" if key != "lite" else
+                              "; h288_*: its 288-thread instance by name, off the main path "
+                              "since bilstm_bwd_lite_mma took bf16 at H=288 (h288_launches 0 "
+                              "in the bf16 model at embedding 272), on the operands of layer 0 "
+                              "of that model (E=272, run at H=288), bf16, 400 rows, T=1500, in "
+                              "turns with bilstm_bwd_lite_mma, bound at H=288 (true_bound_ms "
+                              "at 272), library: cuDNN one-layer bf16 at E=H=272")
             # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
             k96 = widths["kernels_96"][key]
             entry.update({f"h96_{k}": k96[k] for k in (
@@ -3228,6 +3389,28 @@ def main() -> int:
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
         else:
             entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith(f"{key}_rows")}
+        if key == "lite":
+            # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
+            k288 = widths["kernels_288"]["lite_mma"]
+            entry.update({f"h288_{k}": k288[k] for k in (
+                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
+                "true_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters")})
+            entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
+            entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
+            if entry["h288_launches"] <= 0:
+                raise AssertionError("the bf16 model at embedding 272 never ran its lite sweep")
+            entry.update({f"uneven_h256_{k}": w16[f"lite_{v}"] for k, v in (
+                ("ms", "uneven_ms"), ("ms_again", "uneven_ms_again"), ("even_ms", "even_ms"),
+                ("max_abs_err", "uneven_max_abs_err"), ("rows", "uneven_rows"))})
+            entry["work"] += ("; uneven_h256_*: its instance for uneven groups (H=288's) by "
+                              "name on this row's operands, held against the twin, in turns "
+                              "with the H=256 kernel (uneven, even, even, uneven)")
+            entry["work"] += ("; h288_*: its instance for 4 or 5 unit groups a block on layer 0 "
+                              "of the bf16 two-layer model at embedding 272 (E=272, run at "
+                              "H=288, 5 groups, two dy streams), 400 rows, T=1500, bound at "
+                              "H=288 (true_bound_ms at 272), cuda_core_ms: bilstm_bwd_lite.cu's "
+                              "288-thread instance by name (new, old, old, new), launches in "
+                              "that model's steps, library: cuDNN one-layer bf16 at E=H=272")
         kernels.append(entry)
     # the recurrence op: both layers of one recurrence-backend step (layer 0
     # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
@@ -3296,6 +3479,7 @@ def main() -> int:
     # the cluster sweep at its main path's shapes: the f32 recurrence-backend
     # steps of a one-layer model at embedding 128
     c128 = rk["cluster_h128"]
+    h512f = rk["past_288"]["h512"]["float32"]
     kernels.append({
         "name": "lstm_recurrence_bwd",
         "route": "cuda",
@@ -3308,19 +3492,24 @@ def main() -> int:
         "bound_ms": c128["bwd_bound_ms"],
         "bound_by": c128["bwd_bound_by"],
         "library_ms": c128["library_ms"],
-        **{f"h512_{k}": rk["past_288"]["h512"]["float32"][f"bwd_{k}"]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{f"h512_{k}": h512f[f"bwd_{k}"] for k in ("plain_ms", "library_ms")},
+        "h512_ms": h512f["bwd_global_weights_ms"],
+        "h512_bound_ms": h512f["bwd_cuda_core_bound_ms"],
+        "h512_bound_by": h512f["bwd_cuda_core_bound_by"],
         "h512_bf16_ms": rk["past_288"]["h512"]["bfloat16"]["bwd_global_weights_ms"],
-        "h512_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
-                                if c["sweep"] == "lstm_recurrence_bwd"),
-        "h320_launches": rpath["grad_check_embedding_320"]["float32"]["launches"][
-            "lstm_recurrence_bwd"],
+        "h512_max_abs_err": max(
+            [c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
+             if c["sweep"] == "lstm_recurrence_bwd"]
+            + [c["global_weights_max_abs_err"]["dxg"]
+               for c in rk["past_288"]["wide_f32_checks"] if "global_weights_max_abs_err" in c]
+            + [h512f["bwd_global_weights_max_abs_err"]]),
         "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
                 "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
                 "one-layer nn.LSTM backward (input), with the projection's dx; h512_*: its "
-                "global-weight instance, one call at H=512 (400 rows, 5 groups, T=300), f32 "
-                "(h512_bf16_ms: bf16 compute dtype, by name), max_abs_err over H=288, 512 and "
-                "1024 where it runs; h320_launches: the f32 model at embedding 320, one layer",
+                "global-weight instance by name, one call at H=512 (400 rows, 5 groups, "
+                "T=300), f32, in turns with lstm_recurrence_bwd_wide_f32 (h512_bf16_ms: bf16 "
+                "compute dtype, by name), bound at 67 TFLOP/s, max_abs_err over H=288 and, by "
+                "name, H=320, 512 and 1024 (lengths and holes) and the timed H=512 call",
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
@@ -3402,7 +3591,38 @@ def main() -> int:
                     "from lengths and with holes (tolerance 2^-7 x max(1, max|ref|)); "
                     "launches: the bf16 model at embedding 320, one layer",
         })
-    if len(kernels) != 29 or any(k["launches"] <= 0 for k in kernels):
+    # the f32 tensor-core sweep past 288: its main path is the f32 one-layer
+    # model at embedding 320; timed at H = 512 (400 rows in 5 groups,
+    # T = 300), the global-weight instance by name in turns
+    name = "lstm_recurrence_bwd_wide_f32"
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
+        "launches": rpath["grad_check_embedding_320"]["float32"]["launches"][name],
+        "max_abs_err": max(c["max_abs_err"]["dxg"] for c in past["wide_f32_checks"]),
+        "scaled_err": max(c["scaled_err"] for c in past["wide_f32_checks"]),
+        "ms": h512f["bwd_ms"],
+        "ms_again": h512f["bwd_ms_again"],
+        "plain_ms": h512f["bwd_plain_ms"],
+        "bound_ms": h512f["bwd_bound_ms"],
+        "bound_by": h512f["bwd_bound_by"],
+        "cuda_core_bound_ms": h512f["bwd_cuda_core_bound_ms"],
+        "library_ms": h512f["bwd_library_ms"],
+        "global_weights_ms": h512f["bwd_global_weights_ms"],
+        "rows": h512f["plans"]["bwd"]["rows"],
+        "max_active_clusters": h512f["max_active_clusters"],
+        "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full lengths, f32 "
+                "compute dtype; bound at 495/3 TFLOP/s (three tf32 passes; cuda_core_bound_ms "
+                "at 67); global_weights_ms: the global-weight instance of "
+                "lstm_recurrence_bwd.cu by name on the same operands (new, old, old, new); "
+                "library: cuDNN one bidirectional nn.LSTM layer in f32 at that width, TF32 off, "
+                "which also does the input projection; max_abs_err over H=320, 512 and 1024, "
+                "masks from lengths and with holes (tolerance 1e-4 x max(1, max|ref|)); "
+                "launches: the f32 model at embedding 320, one layer",
+    })
+    if len(kernels) != 30 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

@@ -61,13 +61,42 @@
 //   * row tiles of BR in {16, 32, 40, 80} rows (multiples of the n8 tile),
 //     each weight group cut into its own tiles; ops/lstm_cuda.py picks BR by
 //     waves (cudaOccupancyMaxActiveClusters) and shared memory.
-// It takes H = 128 and 256 (8-unit groups per block: H % 64 == 0, and the
-// dh product's m16 tiles split evenly over 8 warps: H % 128 == 0).
+// This kernel takes H = 128 and 256 (8-unit groups per block: H % 64 == 0,
+// and the dh product's m16 tiles split evenly over 8 warps: H % 128 == 0).
+//
+// H = 288 (every bf16 layer of 257-288 units, padded there; layer 0 and the
+// stacked layer at embedding 272) takes a second kernel of the same design,
+// bilstm_bwd_lite_mma_uneven_kernel:
+//   * the 36 unit groups split 4 / 5 over the cluster's blocks
+//     (lstm_recurrence_wide_mma.cuh:unit_groups); warp w < UG owns local
+//     group w and every n8 tile of the row tile (gate product and cell),
+//     warp w the m16 tiles w, w + 8, w + 16 of the 18 in the dh product,
+//     whose K is the block's own 32 UG gate columns;
+//   * the weights stay resident: the bf16 slice of the largest block (5
+//     groups, 160 gate rows of 288 + 8) is 94,720 B. Two buffers of the f32
+//     partial dh (2 x 288 x 40 x 4 B) would leave room for 16-row tiles
+//     only (50 clusters, 4 waves at the train step's 400 rows in 5 groups),
+//     so the partial is single and a step takes two cluster barriers, as in
+//     lstm_recurrence_bwd_wide_mma.cu: a block writes step s's partial only
+//     after every block has read step s - 1's (arrived at right after the
+//     read, waited on after the cell and the dh product). That fits 32-row
+//     tiles at 218,112 B: 30 clusters at the train step's shape, of which an
+//     H100 holds 15 at once (cudaOccupancyMaxActiveClusters, one block an
+//     SM): two waves;
+//   * the last step forms no dh; the partials are read through 32-bit
+//     `mapa` addresses.
+// The C entry also launches this kernel at H = 256 (4 groups a block, 4
+// warps idle in the gate product and the cell) when its shared memory asks
+// for it, so that the two kernels can be timed in turns at the scaled
+// step's shape: whether one kernel could serve every width. It cannot:
+// there it takes about 1.4 x the time of bilstm_bwd_lite_mma_kernel
+// (chip_smoke.py phase wide_kernel, PERF.md), which keeps both.
 
 #include <cooperative_groups.h>
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
+#include "lstm_recurrence_wide_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -469,10 +498,407 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_kernel(const 
   cluster_wait_acquire();  // every block is done reading this block's partials
 }
 
+// ---------------------------------------------- H = 288: uneven group split
+// Dynamic shared memory of the uneven instance <H, BR> (bytes): sized for
+// the block that owns the most groups, MG = ceil(H / 64); one partial buffer.
+__host__ __device__ constexpr int uneven_groups(int H) { return (H + 63) / 64; }
+__host__ __device__ constexpr int smem_w_u(int H) { return 32 * uneven_groups(H) * (H + kPad) * 2; }
+__host__ __device__ constexpr int smem_xg_u(int H, int BR) {
+  return BR * (32 * uneven_groups(H) + kXgPad) * 4;
+}
+__host__ __device__ constexpr int smem_cs_u(int H, int BR) { return BR * 8 * uneven_groups(H) * 2; }
+__host__ __device__ constexpr int smem_dg_u(int H, int BR) {
+  return BR * (32 * uneven_groups(H) + kPad) * 2;
+}
+__host__ __device__ constexpr int smem_part_u(int H, int BR) { return H * part_stride(BR) * 4; }
+__host__ __device__ constexpr int smem_bytes_u(int H, int BR) {
+  return smem_w_u(H) + smem_hp(H, BR) + smem_xg_u(H, BR) + 3 * smem_cs_u(H, BR) +
+         smem_dg_u(H, BR) + smem_part_u(H, BR);
+}
+
+// grid (tiles * kWideCluster, 2) in clusters of kWideCluster, kThreads threads.
+template <int H, int BR>
+__global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel(const Args a) {
+  constexpr int MG = uneven_groups(H);  // most unit groups a block owns
+  constexpr int UM = 8 * MG;            // most units a block owns
+  constexpr int H4 = 4 * H;
+  constexpr int NT = BR / 8;                          // n8 tiles of the row tile
+  constexpr int MT = H / 16;                          // m16 tiles of units (dh product)
+  constexpr int MTW = (MT + kWarps - 1) / kWarps;     // most of them a warp owns
+  constexpr int KS = H + kPad;                        // weight / h_prev row stride (bf16)
+  constexpr int XS = 4 * UM + kXgPad;                 // xg row stride (f32)
+  constexpr int DS = 4 * UM + kPad;                   // dgates tile row stride (bf16)
+  constexpr int PS = part_stride(BR);                 // partial dh row stride (f32)
+  constexpr int HC = H / 8;                           // 16-byte chunks of an h row
+  constexpr int NCH = (BR * HC + kThreads - 1) / kThreads;
+  constexpr int NCX = (BR * UM + kThreads - 1) / kThreads;  // of the xg slice
+  constexpr int NCC = (BR * MG + kThreads - 1) / kThreads;  // of a c_prev / dy slice
+  constexpr int W_AT = 0;
+  constexpr int HP_AT = W_AT + smem_w_u(H);
+  constexpr int XG_AT = HP_AT + smem_hp(H, BR);
+  constexpr int CS_AT = XG_AT + smem_xg_u(H, BR);
+  constexpr int DY_AT = CS_AT + smem_cs_u(H, BR);
+  constexpr int DG_AT = DY_AT + 2 * smem_cs_u(H, BR);
+  constexpr int PART_AT = DG_AT + smem_dg_u(H, BR);
+  static_assert(H % 32 == 0 && MG <= kWarps && BR % 8 == 0, "shape");
+  static_assert(smem_bytes_u(H, BR) == PART_AT + smem_part_u(H, BR), "layout");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / kWideCluster;
+  const int d = blockIdx.y;
+  const int T = a.T, B = a.B, ny = a.ny;
+  const int Bg = B / a.G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int group = tile_row(tile, 0, BR, Bg) / Bg;
+  // this block's unit groups [glo, ghi): UG groups, U units from unit0
+  int glo, ghi;
+  recwide::unit_groups(H, rank, glo, ghi);
+  const int UG = ghi - glo, U = 8 * UG, U4 = 4 * U, unit0 = 8 * glo;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t smem0 = smem_u32(smem);
+  const float* xg_s = reinterpret_cast<const float*>(smem + XG_AT);
+  const bf16* cs_s = reinterpret_cast<const bf16*>(smem + CS_AT);
+  const bf16* dy_s = reinterpret_cast<const bf16*>(smem + DY_AT);
+  bf16* dg_s = reinterpret_cast<bf16*>(smem + DG_AT);
+  float* part_s = reinterpret_cast<float*>(smem + PART_AT);  // [H][PS]
+
+  // the tile's longest row bounds the positions that do any work (as in
+  // bilstm_bwd_lite_mma_kernel)
+  int maxlen = 0;
+  for (int rl = 0; rl < BR; ++rl) {
+    const int r = tile_row(tile, rl, BR, Bg);
+    if (r >= 0) maxlen = max(maxlen, min(a.lengths[r], T));
+  }
+  float* dgd = a.dgates + (size_t)d * T * B * H4;
+
+  // positions [maxlen, T): this block's dgates columns are zero
+  {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int idx = tid; idx < (T - maxlen) * BR * U; idx += kThreads) {
+      const int pi = idx / (BR * U), rem = idx - pi * (BR * U);
+      const int rl = rem / U, c = rem - rl * U;
+      const int r = tile_row(tile, rl, BR, Bg);
+      if (r < 0) continue;
+      const int q = c / (U / 4), cu = (c - q * (U / 4)) * 4;
+      *reinterpret_cast<float4*>(dgd + ((size_t)(maxlen + pi) * B + r) * H4 + q * H + unit0 +
+                                 cu) = zero;
+    }
+  }
+  if (maxlen == 0) return;  // no step: no barrier, no exchange
+
+  const int hshift = d ? 1 : -1;  // h_prev / c_prev position relative to pos
+  const int pos0 = d ? 0 : maxlen - 1, dpos = d ? 1 : -1;
+  const bf16* hs = a.hs[d];
+  const bf16* cs = a.cs[d];
+  const float* xgd = a.xg + (size_t)d * T * B * H4;
+
+  // this thread's 16-byte chunks of a step's tiles (rows fixed for the
+  // sweep): h_prev (HC a row), the xg slice (U a row), c_prev and dy (UG)
+  int hrow[NCH], xrow[NCX], crow[NCC];
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) {
+    const int idx = tid + m * kThreads;
+    hrow[m] = idx < BR * HC ? tile_row(tile, idx / HC, BR, Bg) : -2;
+  }
+#pragma unroll
+  for (int m = 0; m < NCX; ++m) {
+    const int idx = tid + m * kThreads;
+    xrow[m] = idx < BR * U ? tile_row(tile, idx / U, BR, Bg) : -2;
+  }
+#pragma unroll
+  for (int m = 0; m < NCC; ++m) {
+    const int idx = tid + m * kThreads;
+    crow[m] = idx < BR * UG ? tile_row(tile, idx / UG, BR, Bg) : -2;
+  }
+  // h_prev for the gates at `pos`, into buffer `buf`
+  auto fetch_h = [&](int buf, int pos) {
+    const int ppos = pos + hshift;
+    const bool in_t = ppos >= 0 && ppos < T;
+    const uint32_t base = smem0 + HP_AT + (uint32_t)(buf * BR * KS * 2);
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      if (hrow[m] == -2) continue;
+      const int idx = tid + m * kThreads, rl = idx / HC, c = idx - rl * HC;
+      const bool ok = in_t && hrow[m] >= 0;
+      cp_async16(base + (uint32_t)((rl * KS + 8 * c) * 2),
+                 ok ? hs + ((size_t)ppos * B + hrow[m]) * H + 8 * c : hs, ok);
+    }
+  };
+  // the xg slice, c_prev and the dy streams at `pos`
+  auto fetch_step = [&](int pos) {
+    const int ppos = pos + hshift;
+    const bool in_t = ppos >= 0 && ppos < T;
+#pragma unroll
+    for (int m = 0; m < NCX; ++m) {
+      if (xrow[m] == -2) continue;
+      const int idx = tid + m * kThreads, rl = idx / U, c = idx - rl * U;
+      const int q = c / (U / 4), cu = (c - q * (U / 4)) * 4;
+      const bool ok = xrow[m] >= 0;
+      cp_async16(smem0 + XG_AT + (uint32_t)((rl * XS + q * U + cu) * 4),
+                 ok ? xgd + ((size_t)pos * B + xrow[m]) * H4 + q * H + unit0 + cu : xgd, ok);
+    }
+#pragma unroll
+    for (int m = 0; m < NCC; ++m) {
+      if (crow[m] == -2) continue;
+      const int idx = tid + m * kThreads, rl = idx / UG, c = (idx - rl * UG) * 8;
+      const bool real = crow[m] >= 0;
+      const bool ok = real && in_t;
+      cp_async16(smem0 + CS_AT + (uint32_t)((rl * UM + c) * 2),
+                 ok ? cs + ((size_t)ppos * B + crow[m]) * H + unit0 + c : cs, ok);
+      for (int k = 0; k < ny; ++k)
+        cp_async16(smem0 + DY_AT + (uint32_t)(((k * BR + rl) * UM + c) * 2),
+                   real ? a.dy[d][k] + ((size_t)pos * B + crow[m]) * H + unit0 + c : cs, real);
+    }
+  };
+
+  // stage this block's 4U gate rows of W_hh[d, group], permuted: row p =
+  // 32 * (ul / 8) + 8 * gate + ul % 8 holds gate `gate` of local unit ul
+  {
+    const bf16* w = a.w_hh + ((size_t)d * a.G + group) * H4 * H;
+    for (int idx = tid; idx < U4 * HC; idx += kThreads) {
+      const int p = idx / HC, c = idx - p * HC;
+      const int ul = 8 * (p >> 5) + (p & 7), q = (p & 31) >> 3;
+      cp_async16(smem0 + W_AT + (uint32_t)((p * KS + 8 * c) * 2),
+                 w + ((size_t)q * H + unit0 + ul) * H + 8 * c, true);
+    }
+  }
+  fetch_h(0, pos0);
+  if (maxlen > 1) fetch_h(1, pos0 + dpos);
+  fetch_step(pos0);
+  cp_async_commit();
+
+  // gate items: warp w < UG owns local group w (units 8w .. 8w + 7 of the
+  // block) and every n8 tile; lane (g, t) the unit 8w + g and tile rows
+  // 8 nt + 2t + i
+  const bool gw = warp < UG;
+  const int ul = 8 * warp + g, unit = unit0 + ul;
+  int row[NT][2], len[NT][2];
+  float dh[NT][2], dc[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = gw ? tile_row(tile, 8 * nt + 2 * t + i, BR, Bg) : -1;
+      row[nt][i] = r;
+      len[nt][i] = r >= 0 ? a.lengths[r] : 0;
+      const size_t at = ((size_t)d * B + (r >= 0 ? r : 0)) * H + (r >= 0 ? unit : 0);
+      dh[nt][i] = (r >= 0 && a.dhn) ? a.dhn[at] : 0.0f;
+      dc[nt][i] = (r >= 0 && a.dcn) ? a.dcn[at] : 0.0f;
+      // the forward direction's sweep starts at T - 1: past the tile's
+      // longest row a step only adds dy to dh, in the same order as the full sweep
+      if (d == 0 && r >= 0 && ny > 0) {
+        for (int pos = T - 1; pos >= maxlen; --pos) {
+          float dyv = 0.0f;
+          for (int k = 0; k < ny; ++k)
+            dyv += __bfloat162float(a.dy[0][k][((size_t)pos * B + r) * H + unit]);
+          dh[nt][i] += dyv;
+        }
+      }
+    }
+
+  const uint32_t W_u32 = smem0 + W_AT;
+  // gate product: A rows 32 w + 16 mt + lr + 8 (lm & 1), columns k0 + 8 (lm >> 1);
+  // B: h_prev tile rows 8 nt + lr, columns k0 + 8 lm (two k16 steps a load)
+  const uint32_t a_gate = W_u32 + (uint32_t)(((32 * warp + lr + 8 * (lm & 1)) * KS +
+                                              8 * (lm >> 1)) * 2);
+  const uint32_t b_gate = (uint32_t)((lr * KS + 8 * lm) * 2);
+  float acc[NT][2][4];
+  auto gate_mma = [&](int buf) {
+    if (!gw) return;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[nt][mt][v] = 0.0f;
+    const uint32_t b_base = smem0 + HP_AT + (uint32_t)(buf * BR * KS * 2) + b_gate;
+    uint32_t fa[2][2][2][4];  // [buffer][k16 half][mt]
+    auto load_a = [&](uint32_t (&f)[2][2][4], int r) {
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(f[kh][mt], a_gate + (uint32_t)((16 * mt * KS + 32 * r + 16 * kh) * 2));
+    };
+    load_a(fa[0], 0);
+#pragma unroll
+    for (int r = 0; r < H / 32; ++r) {
+      uint32_t(&f)[2][2][4] = fa[r & 1];
+      if (r + 1 < H / 32) load_a(fa[(r + 1) & 1], r + 1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_base + (uint32_t)((8 * nt * KS + 32 * r) * 2));
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[nt][mt], f[kh][mt], b[2 * kh], b[2 * kh + 1]);
+      }
+    }
+  };
+  // dh product: A = W_slice^T, stored rows (gate rows) 8 (lm >> 1) + lr,
+  // columns (units) 16 m + 8 (lm & 1) of this warp's m16 tiles m = w + 8 j,
+  // through ldmatrix.trans; B: dgates tile rows 8 nt + lr, columns p0 + 8 lm;
+  // K: the block's 32 UG gate rows
+  const int nmt = MT > warp ? min(MTW, (MT - warp + kWarps - 1) / kWarps) : 0;
+  const uint32_t a_dh = W_u32 + (uint32_t)(((8 * (lm >> 1) + lr) * KS + 16 * warp +
+                                            8 * (lm & 1)) * 2);
+  const uint32_t b_dh = smem0 + DG_AT + (uint32_t)((lr * DS + 8 * lm) * 2);
+  float c[MTW][NT][4];
+  auto dh_mma = [&]() {
+#pragma unroll
+    for (int j = 0; j < MTW; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) c[j][nt][v] = 0.0f;
+    uint32_t fa[2][2][MTW][4];  // [buffer][k16 half][m16 tile]
+    auto load_a = [&](uint32_t (&f)[2][MTW][4], int r) {
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+        for (int j = 0; j < MTW; ++j)
+          if (j < nmt)
+            ldmatrix_x4_trans(f[kh][j], a_dh + (uint32_t)(((32 * r + 16 * kh) * KS +
+                                                           16 * kWarps * j) * 2));
+    };
+    load_a(fa[0], 0);
+#pragma unroll
+    for (int r = 0; r < MG; ++r) {
+      if (r >= UG) break;
+      uint32_t(&f)[2][MTW][4] = fa[r & 1];
+      if (r + 1 < UG) load_a(fa[(r + 1) & 1], r + 1);
+      uint32_t b[2][4];
+      ldmatrix_x4(b[0], b_dh + (uint32_t)(32 * r * 2));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt + 1 < NT)
+          ldmatrix_x4(b[(nt + 1) & 1], b_dh + (uint32_t)((8 * (nt + 1) * DS + 32 * r) * 2));
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int j = 0; j < MTW; ++j)
+            if (j < nmt)
+              mma_bf16(c[j][nt], f[kh][j], b[nt & 1][2 * kh], b[nt & 1][2 * kh + 1]);
+      }
+    }
+  };
+
+  cp_async_wait<0>();
+  __syncthreads();  // W, h_prev of the first two steps, the first step's tiles
+  gate_mma(0);
+  const uint32_t part_u32 = smem_u32(part_s);
+
+  int pos = pos0;
+  for (int s = 0; s < maxlen; ++s, pos += dpos) {
+    if (s > 0) {
+      // dh of this step: the 8 partials of the previous step, in rank order
+      cluster_wait_acquire();
+      if (gw) {
+        uint32_t rank_base[kWideCluster];
+#pragma unroll
+        for (int k = 0; k < kWideCluster; ++k) rank_base[k] = recwide::mapa_u32(part_u32, k);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint32_t off = (uint32_t)((unit * PS + 8 * nt + 2 * t) * 4);
+          float2 p[kWideCluster];
+#pragma unroll
+          for (int k = 0; k < kWideCluster; ++k) p[k] = recwide::ld_dsmem_f2(rank_base[k] + off);
+          float s0 = p[0].x, s1 = p[0].y;
+#pragma unroll
+          for (int k = 1; k < kWideCluster; ++k) {
+            s0 += p[k].x;
+            s1 += p[k].y;
+          }
+          dh[nt][0] = s0 + dh[nt][0];  // dh holds what the masked rows passed through
+          dh[nt][1] = s1 + dh[nt][1];
+        }
+      }
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");  // done reading
+      cp_async_wait<0>();
+      __syncthreads();  // this step's xg, c_prev and dy (and the next h_prev) landed
+    }
+
+    // the cell: lane (g, t) holds the four gates of unit `ul` for rows 2t, 2t + 1
+    if (gw) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rl = 8 * nt + 2 * t + i;
+          const float* xv = xg_s + rl * XS + ul;
+          const float ig = fast_sigmoid(xv[0] + acc[nt][0][i]);
+          const float fg = fast_sigmoid(xv[U] + acc[nt][0][2 + i]);
+          const float gg = fast_tanh(xv[2 * U] + acc[nt][1][i]);
+          const float og = fast_sigmoid(xv[3 * U] + acc[nt][1][2 + i]);
+          const float cprev = __bfloat162float(cs_s[rl * UM + ul]);
+          float dyv = 0.0f;
+          for (int k = 0; k < ny; ++k) dyv += __bfloat162float(dy_s[(k * BR + rl) * UM + ul]);
+          const float c_new = fg * cprev + ig * gg;
+          const float dht = dh[nt][i] + dyv;
+          const float tc = fast_tanh(c_new);
+          const float dct = dc[nt][i] + dht * og * (1.0f - tc * tc);
+          const bool m = pos < len[nt][i];
+          float g4[4];
+          g4[0] = m ? dct * gg * ig * (1.0f - ig) : 0.0f;
+          g4[1] = m ? dct * cprev * fg * (1.0f - fg) : 0.0f;
+          g4[2] = m ? dct * ig * (1.0f - gg * gg) : 0.0f;
+          g4[3] = m ? dht * tc * og * (1.0f - og) : 0.0f;
+          dc[nt][i] = m ? dct * fg : dc[nt][i];
+          dh[nt][i] = m ? 0.0f : dht;  // passed through to the next step where masked
+          if (row[nt][i] >= 0) {
+            float* dst = dgd + ((size_t)pos * B + row[nt][i]) * H4 + unit;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dst[q * H] = g4[q];
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            dg_s[rl * DS + 32 * warp + 8 * q + g] = __float2bfloat16_rn(g4[q]);
+        }
+    }
+    if (s + 1 == maxlen) break;  // the last step's dh is dead
+    __syncthreads();  // the dgates tile is complete; every warp is past this step's tiles
+    fetch_step(pos + dpos);
+    if (s + 2 < maxlen) fetch_h(s & 1, pos + 2 * dpos);
+    cp_async_commit();
+
+    dh_mma();
+    if (s > 0) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // all read s - 1's
+    // rows g and g + 8 of m16 tile m are units 16 m + g (+ 8), columns 2t,
+    // 2t + 1 of n8 tile nt are tile rows 8 nt + 2t (+ 1)
+#pragma unroll
+    for (int j = 0; j < MTW; ++j) {
+      if (j >= nmt) continue;
+      const int u = 16 * (warp + kWarps * j) + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        *reinterpret_cast<float2*>(part_s + u * PS + 8 * nt + 2 * t) =
+            make_float2(c[j][nt][0], c[j][nt][1]);
+        *reinterpret_cast<float2*>(part_s + (u + 8) * PS + 8 * nt + 2 * t) =
+            make_float2(c[j][nt][2], c[j][nt][3]);
+      }
+    }
+    cluster_arrive_release();  // this block's partial of step s is written
+    gate_mma((s + 1) & 1);
+  }
+  // every block is done reading this block's partials before it exits
+  if (maxlen > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
 template <int H, int BR>
 int launch(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clusters) {
   if (smem != smem_bytes(H, BR)) return (int)cudaErrorInvalidValue;
   return launch_wide(bilstm_bwd_lite_mma_kernel<H, BR>, tiles, kThreads, smem, stream,
+                     max_clusters, a);
+}
+
+template <int H, int BR>
+int launch_uneven(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clusters) {
+  if (smem != smem_bytes_u(H, BR)) return (int)cudaErrorInvalidValue;
+  return launch_wide(bilstm_bwd_lite_mma_uneven_kernel<H, BR>, tiles, kThreads, smem, stream,
                      max_clusters, a);
 }
 
@@ -490,12 +916,14 @@ const char* bilstm_bwd_lite_mma_error_string(int err) {
 }
 
 // The compute dtype is bfloat16. `rows` is the row tile (16, 32, 40 or 80;
-// 80 at H = 128 only) and `smem` its dynamic shared memory, as
-// ops/lstm_cuda.py:lite_mma_smem computes it (refused otherwise). xg
+// 80 at H = 128 only; 16 or 32 at H = 288) and `smem` its dynamic shared
+// memory, as ops/lstm_cuda.py:wide_smem("lite_mma", ...) computes it
+// (refused otherwise); at H = 256, 16 or 32 rows, the shared memory of the
+// uneven instance (wide_smem("lite_mma_uneven", ...)) launches that one. xg
 // (2, T, B, 4H) f32; w_hh (2, G, 4H, H); hs_f, hs_b, cs_f, cs_b and the dy
 // streams (T, B, H) bf16 (dy*1 may be null, ny = 0-2 streams per direction);
-// dhn / dcn (2, B, H) f32 or null (zero); dgates (2, T, B, 4H) f32. H = 128
-// or 256; each of the G weight groups (B / G rows) is cut into its own tiles
+// dhn / dcn (2, B, H) f32 or null (zero); dgates (2, T, B, 4H) f32. H = 128,
+// 256 or 288; each of the G weight groups (B / G rows) is cut into its own tiles
 // of `rows` rows: `tiles` = G * ceil(B / G / rows). With max_clusters
 // non-null, nothing is launched: it receives how many clusters the card
 // holds at once. Returns a cudaError_t (0 on success).
@@ -522,9 +950,15 @@ int bilstm_bwd_lite_mma(int rows, const void* xg, const void* lengths, const voi
   a.T = T_steps; a.B = B; a.G = G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256) {
+    // the uneven instance by its shared memory: timed against this one
+    const bool uneven = smem == smem_bytes_u(256, rows);
     switch (rows) {
-      case 16: return launch<256, 16>(a, tiles, smem, st, max_clusters);
-      case 32: return launch<256, 32>(a, tiles, smem, st, max_clusters);
+      case 16:
+        return uneven ? launch_uneven<256, 16>(a, tiles, smem, st, max_clusters)
+                      : launch<256, 16>(a, tiles, smem, st, max_clusters);
+      case 32:
+        return uneven ? launch_uneven<256, 32>(a, tiles, smem, st, max_clusters)
+                      : launch<256, 32>(a, tiles, smem, st, max_clusters);
       case 40: return launch<256, 40>(a, tiles, smem, st, max_clusters);
       default: break;
     }
@@ -534,6 +968,12 @@ int bilstm_bwd_lite_mma(int rows, const void* xg, const void* lengths, const voi
       case 32: return launch<128, 32>(a, tiles, smem, st, max_clusters);
       case 40: return launch<128, 40>(a, tiles, smem, st, max_clusters);
       case 80: return launch<128, 80>(a, tiles, smem, st, max_clusters);
+      default: break;
+    }
+  } else if (H == 288) {
+    switch (rows) {
+      case 16: return launch_uneven<288, 16>(a, tiles, smem, st, max_clusters);
+      case 32: return launch_uneven<288, 32>(a, tiles, smem, st, max_clusters);
       default: break;
     }
   }

@@ -60,7 +60,8 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
     out), by one of two kernels (``lite_kernel``):
     ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
-    H = 128 and 256: the products on the tensor cores),
+    H = 128, 256 and 288: the products on the tensor cores; at 288 an
+    instance whose cluster splits the unit groups 4 / 5 a block),
     ``bilstm_bwd_lite`` itself launches ``csrc/bilstm_bwd_lite.cu`` for the
     rest (f32, and the bf16 widths the tensor-core sweep does not take; CUDA
     cores). Plain twin of both: ``ops/lstm.py:bidir_layer_sweep_lite``.
@@ -80,9 +81,9 @@ Beside the layer kernels, the time-major recurrence op
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
 of its own: three on the wide route's cluster design at every width they
-take (past 288 the f32 forward and cluster sweep read their weight slices
-from an L2-resident global copy, ``recurrence_global_weights``), and four
-tensor-core ones:
+take (past 288 the f32 forward, and the cluster sweep when asked for by
+name, read their weight slices from an L2-resident global copy,
+``recurrence_global_weights``), and five tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
   _fwd_pallas``, by one of two kernels (``recurrence_fwd_kernel``):
@@ -93,7 +94,7 @@ tensor-core ones:
   launches the cluster kernel ``csrc/lstm_recurrence_fwd.cu`` for the
   rest. Plain twin of both: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
-  _bwd_pallas`` (``dxg``), by one of four kernels
+  _bwd_pallas`` (``dxg``), by one of five kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
   ``csrc/lstm_recurrence_bwd_mma.cu`` (bf16, H = 32 or 64: one block per
   row tile, tensor cores), ``lstm_recurrence_bwd_f32`` launches
@@ -101,9 +102,12 @@ tensor-core ones:
   in three tf32 passes), ``lstm_recurrence_bwd_wide_mma`` launches
   ``csrc/lstm_recurrence_bwd_wide_mma.cu`` (bf16 past 288: the forward's
   clusters and weight fragments, both products on ``mma.sync``),
-  ``lstm_recurrence_bwd`` itself launches the cluster kernel
-  ``csrc/lstm_recurrence_bwd.cu`` for the rest (H >= 96). Plain twin of
-  all four: ``recurrence_sweep``.
+  ``lstm_recurrence_bwd_wide_f32`` launches
+  ``csrc/lstm_recurrence_bwd_wide_f32.cu`` (f32 past 288: the same design
+  in three tf32 passes on an f32 copy of the weight fragments,
+  ``recurrence_f32_weights``), ``lstm_recurrence_bwd`` itself launches the
+  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest (96 to 288).
+  Plain twin of all five: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
@@ -179,7 +183,9 @@ SMEM_LIMIT = 232448
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
 # bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
 # bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad), bilstm_wgrad_f32.cu
-# (kTileM, kTileN, kTileK, kStages, kSmem)
+# (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
+# and lstm_recurrence_bwd_wide_f32.cu (kWideCluster, kThreads, their padding,
+# kMinH, kRecMaxH, the row tiles of each instance)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -228,9 +234,11 @@ GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K, GATES_MMA_STAGES = 128, 12
 GATES_MMA_SMEM = GATES_MMA_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
     GATES_MMA_TILE_K + MMA_PAD) * 2
 # the tensor-core lite sweep: the widths and row tiles it is instantiated
-# for (a row tile is a multiple of the n8 tile), threads a block, and the
+# for (a row tile is a multiple of the n8 tile; at 288, whose unit groups
+# split unevenly over the cluster, 16 and 32), threads a block, and the
 # padding of its f32 xg rows (its bf16 rows take MMA_PAD)
-LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256), (16, 32, 40, 80)
+LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256, 288), (16, 32, 40, 80)
+LITE_MMA_UNEVEN_ROWS = (16, 32)
 LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
 # the tensor-core wide forward: the widths and row tiles it is instantiated
 # for, and threads a block
@@ -246,6 +254,10 @@ WGRAD_F32_STAGES = 4
 REC_WIDE_MMA_THREADS, REC_WIDE_MMA_MIN_H = 256, 320
 REC_WIDE_MMA_ROWS = {"fwd": {1: (16, 32, 48, 80), 2: (16, 32)},
                      "bwd": {1: (16, 32), 2: (16,)}}
+# the op's f32 tensor-core sweep past WIDE_MAX_THREADS
+# (lstm_recurrence_bwd_wide_f32.cu): its row tiles by unit groups a warp,
+# and the f32 padding of its h and dgates tile rows
+REC_WIDE_F32_ROWS, REC_WIDE_F32_PAD = {1: (16, 32), 2: (16,)}, 16
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
@@ -290,6 +302,8 @@ _SIGNATURES = {
     "lstm_recurrence_fwd_wide_mma": ("lstm_recurrence_fwd_wide_mma",
                                      [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_wide_mma": ("lstm_recurrence_bwd_wide_mma",
+                                     [_I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd_wide_f32": ("lstm_recurrence_bwd_wide_f32",
                                      [_I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
@@ -393,6 +407,11 @@ _CONSTANTS = {
         (WIDE_CLUSTER, REC_WIDE_MMA_THREADS, MMA_PAD, REC_WIDE_MMA_MIN_H, REC_MAX_H,
          *(sum(1 << (r // 8) for r in REC_WIDE_MMA_ROWS[kind][n]) for n in (1, 2))))
        for kind in ("fwd", "bwd")},
+    "lstm_recurrence_bwd_wide_f32": (
+        tuple(f"lstm_recurrence_bwd_wide_f32_{c}"
+              for c in ("cluster", "threads", "pad", "min_h", "max_h", "rows1", "rows2")),
+        (WIDE_CLUSTER, REC_WIDE_MMA_THREADS, REC_WIDE_F32_PAD, REC_WIDE_MMA_MIN_H, REC_MAX_H,
+         *(sum(1 << (r // 8) for r in REC_WIDE_F32_ROWS[n]) for n in (1, 2)))),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -942,8 +961,9 @@ def gates_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
 def lite_mma_check(H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or width the tensor-core lite sweep
     (``csrc/bilstm_bwd_lite_mma.cu``) does not take: it takes bfloat16 at
-    H in ``LITE_MMA_WIDTHS`` (whole 8-unit groups in each of the cluster's
-    8 blocks, and the dh product's m16 tiles evenly over 8 warps)."""
+    H in ``LITE_MMA_WIDTHS``: 128 and 256 (whole 8-unit groups in each of
+    the cluster's 8 blocks, and the dh product's m16 tiles evenly over 8
+    warps) and 288 (an instance for 4 or 5 groups a block)."""
     if dtype != torch.bfloat16 or H not in LITE_MMA_WIDTHS:
         raise ValueError(
             f"bilstm_bwd_lite_mma kernel takes bfloat16 with H in {list(LITE_MMA_WIDTHS)}, "
@@ -952,8 +972,8 @@ def lite_mma_check(H: int, dtype: torch.dtype) -> None:
 
 def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
-    ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128
-    or 256), else ``"bilstm_bwd_lite"`` where ``wide_check`` passes (f32,
+    ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
+    256 or 288), else ``"bilstm_bwd_lite"`` where ``wide_check`` passes (f32,
     and the bf16 widths the tensor-core sweep does not take); ValueError
     naming both refusals otherwise."""
     try:
@@ -1017,18 +1037,26 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     row, two bf16 h tiles and the block's new h and c staged (both variants
     take the same, so they take the same tile). ``kind`` "rec_fwd_mma" and
     "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
-    (``recurrence_wide_mma_smem``)."""
+    (``recurrence_wide_mma_smem``); "rec_bwd_f32": its f32 tensor-core
+    sweep past 288 (``recurrence_wide_f32_smem``). At H = 288 "lite_mma"
+    is the instance for uneven groups: every per-block width sized for the
+    block of ceil(H / 64) groups, and ONE partial buffer; "lite_mma_uneven"
+    is that instance at any width (at 256, by name only)."""
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         return recurrence_wide_mma_smem(kind[4:7], H, rows)
+    if kind == "rec_bwd_f32":
+        return recurrence_wide_f32_smem(H, rows)
     U = H // WIDE_CLUSTER
     if kind == "fwd_mma":
         BR, pad = rows, MMA_PAD
         return 4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2 + 2 * BR * (U + pad) * 2
-    if kind == "lite_mma":
-        BR, pad = rows, MMA_PAD
+    if kind in ("lite_mma", "lite_mma_uneven"):
+        BR, pad, buffers = rows, MMA_PAD, 2
+        if H % 128 or kind == "lite_mma_uneven":
+            U, buffers = 8 * -(-H // 64), 1
         return (4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2
                 + BR * (4 * U + LITE_MMA_XG_PAD) * 4 + 3 * BR * U * 2
-                + BR * (4 * U + pad) * 2 + 2 * H * _lite_mma_part_stride(BR) * 4)
+                + BR * (4 * U + pad) * 2 + buffers * H * _lite_mma_part_stride(BR) * 4)
     BR = WIDE_CLUSTER * rows
     w_slice = H * (4 * U + (WIDE_PAD if kind == "bwd" else 0)) * 4
     if H > WIDE_MAX_THREADS:
@@ -1053,19 +1081,27 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     card in the fewest waves, and among those the smallest tile; ``rows``
     is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
-    ``FWD_WIDE_MMA_ROWS`` for "fwd_mma", ``REC_WIDE_MMA_ROWS`` at H for
-    "rec_fwd_mma" and "rec_bwd_mma") for the tensor-core ones.
+    ``LITE_MMA_UNEVEN_ROWS`` there at H = 288 and for "lite_mma_uneven",
+    ``FWD_WIDE_MMA_ROWS`` for
+    "fwd_mma", ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
+    "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32") for the
+    tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
-    rows = {"lite_mma": LITE_MMA_ROWS, "fwd_mma": FWD_WIDE_MMA_ROWS}.get(kind, WIDE_ROWS)
+    rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
+            "lite_mma_uneven": LITE_MMA_UNEVEN_ROWS,
+            "fwd_mma": FWD_WIDE_MMA_ROWS}.get(kind, WIDE_ROWS)
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
+    if kind == "rec_bwd_f32":
+        rows = REC_WIDE_F32_ROWS[1 if H <= 512 else 2]
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = mma_tiles(B, G, R) if kind.endswith("_mma") else wide_tiles(B, G, R)
+        tiles = (mma_tiles(B, G, R) if kind.endswith(("_mma", "_f32", "_uneven"))
+                 else wide_tiles(B, G, R))
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -1082,12 +1118,13 @@ _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + 
                 "bilstm_fwd_wide_mma": [None] * 9,
                 "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
-                "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1]}
+                "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
+                "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1]}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
-    # the tensor-core kernels' C entries take no dtype code (bf16 only)
-    lead = [] if name.endswith("_mma") else [_DTYPE_CODES[dtype]]
+    # the tensor-core kernels' C entries take no dtype code (one dtype each)
+    lead = [] if name.endswith(("_mma", "_wide_f32")) else [_DTYPE_CODES[dtype]]
 
     def count(R: int, smem: int) -> int:
         key = (name, dtype, H, R, smem, dev.index)
@@ -2138,7 +2175,7 @@ def bilstm_bwd_lite(
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
     width and dtype: the tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128 and 256; its ``.launches`` then counts it), or
+    (bf16 at H = 128, 256 and 288; its ``.launches`` then counts it), or
     ``csrc/bilstm_bwd_lite.cu`` here. ``kernel="bilstm_bwd_lite"`` asks for
     the latter by name (to time it beside the other)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
@@ -2188,13 +2225,17 @@ def bilstm_bwd_lite_mma(
     dhn: Optional[torch.Tensor],
     dcn: Optional[torch.Tensor],
     compute_dtype: torch.dtype,
+    uneven: bool = False,
 ) -> torch.Tensor:
     """One layer's backward sweep over its input gates on the tensor cores
     (``csrc/bilstm_bwd_lite_mma.cu``); the contract of
     :func:`bilstm_bwd_lite`. Takes the widths ``lite_mma_check`` takes
-    (bfloat16, H = 128 and 256) and raises for the rest; the row tile is
-    ``wide_plan("lite_mma", ...)``'s. Its output carries no graph, so under
-    grad mode it refuses an operand that requires grad, on the CPU too."""
+    (bfloat16, H = 128, 256 and 288) and raises for the rest; the row tile is
+    ``wide_plan("lite_mma", ...)``'s. ``uneven=True`` asks at H = 256 for
+    the instance for uneven group splits (H = 288's, row tile
+    ``wide_plan("lite_mma_uneven", ...)``'s), to time the two in turns; no
+    dispatch asks for it. Its output carries no graph, so under grad mode
+    it refuses an operand that requires grad, on the CPU too."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     _no_graph(xg, w_hh, hs_f, hs_b, cs_f, cs_b, *dyf, *dyb)
@@ -2202,12 +2243,15 @@ def bilstm_bwd_lite_mma(
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
     lite_mma_check(xg.shape[-1] // 4, cd)
+    if uneven and xg.shape[-1] // 4 not in (256, 288):
+        raise ValueError(f"bilstm_bwd_lite_mma: the uneven instance takes H = 256 and 288, "
+                         f"got H={xg.shape[-1] // 4}")
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite_mma", xg, lengths, w_hh, hs_f,
                                            hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dgates
-    rows, tiles, smem = wide_plan("lite_mma", B, G, H,
+    rows, tiles, smem = wide_plan("lite_mma_uneven" if uneven else "lite_mma", B, G, H,
                                   _max_clusters("bilstm_bwd_lite_mma", cd, H, dev))
     with torch.cuda.device(dev):
         err = _kernels("bilstm_bwd_lite_mma").bilstm_bwd_lite_mma(
@@ -2423,6 +2467,17 @@ def recurrence_wide_mma_check(H: int, compute_dtype: torch.dtype) -> None:
             f"{compute_dtype}")
 
 
+def recurrence_wide_f32_check(H: int, compute_dtype: torch.dtype) -> None:
+    """ValueError for a width or compute dtype the recurrence op's f32
+    tensor-core sweep past 288 (``lstm_recurrence_bwd_wide_f32``) does not
+    take: it takes float32 with H % 32 == 0 from ``REC_WIDE_MMA_MIN_H`` to
+    ``REC_MAX_H``."""
+    if compute_dtype != torch.float32 or H % 32 or not REC_WIDE_MMA_MIN_H <= H <= REC_MAX_H:
+        raise ValueError(
+            f"lstm_recurrence_bwd_wide_f32 takes compute dtype float32 with H % 32 == 0 from "
+            f"{REC_WIDE_MMA_MIN_H} to {REC_MAX_H}, got H={H}, {compute_dtype}")
+
+
 def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's forward takes, by width and compute
     dtype alone: bfloat16 past ``WIDE_MAX_THREADS`` units the tensor-core
@@ -2441,15 +2496,17 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     ``"lstm_recurrence_bwd_mma"`` for bfloat16 and
     ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; bfloat16
     past ``WIDE_MAX_THREADS`` the tensor-core
-    ``"lstm_recurrence_bwd_wide_mma"``; the cluster kernel
-    ``"lstm_recurrence_bwd"`` for the rest (f32 from 96 to ``REC_MAX_H``,
-    bf16 from 96 to 288); ValueError for what none takes."""
+    ``"lstm_recurrence_bwd_wide_mma"``, float32 there
+    ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); the cluster
+    kernel ``"lstm_recurrence_bwd"`` for the rest (96 to 288); ValueError
+    for what none takes."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
             else "lstm_recurrence_bwd_f32"
-    if compute_dtype == torch.bfloat16 and H > WIDE_MAX_THREADS:
-        return "lstm_recurrence_bwd_wide_mma"
+    if H > WIDE_MAX_THREADS:
+        return "lstm_recurrence_bwd_wide_mma" if compute_dtype == torch.bfloat16 \
+            else "lstm_recurrence_bwd_wide_f32"
     return "lstm_recurrence_bwd"
 
 
@@ -2473,6 +2530,42 @@ def recurrence_wide_mma_smem(kind: str, H: int, rows: int) -> int:
     part_stride = rows + (8 - rows) % 16
     return (rows * H * 4 + rows * (H + MMA_PAD) * 2 + rows * (32 * groups + MMA_PAD) * 2
             + H * part_stride * 4)
+
+
+def recurrence_wide_f32_smem(H: int, rows: int) -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_bwd_wide_f32``
+    at H units and a row tile of ``rows``
+    (``csrc/lstm_recurrence_bwd_wide_f32.cu:smem_bytes``): the f32 h_prev
+    tile, the block's f32 dgates tile (32 gate columns for each of its at
+    most ceil(H / 64) unit groups), rows padded by ``REC_WIDE_F32_PAD``,
+    and the f32 partial dh of all H units (rows padded to 8 mod 16).
+    ValueError for a width ``recurrence_wide_f32_check`` refuses or a row
+    tile with no instance."""
+    recurrence_wide_f32_check(H, torch.float32)
+    if rows not in REC_WIDE_F32_ROWS[1 if H <= 512 else 2]:
+        raise ValueError(f"lstm_recurrence_bwd_wide_f32: no instance for a row tile of {rows} "
+                         f"at H={H}")
+    pad, part_stride = REC_WIDE_F32_PAD, rows + (8 - rows) % 16
+    return (rows * (H + pad) * 4 + rows * (32 * -(-H // 64) + pad) * 4
+            + H * part_stride * 4)
+
+
+def recurrence_f32_weights(w: torch.Tensor) -> torch.Tensor:
+    """The copy of ``w (D, G, H, 4H)`` (f32) that the f32 tensor-core sweep
+    past 288 reads: for each (d, g), unit group of 8, k8 step kk of the H
+    inputs and m16 half mt of the group's 32 permuted gate rows (row
+    32 * group + 8 * gate + unit % 8, ``bilstm_mma.cuh``), every lane's
+    ``mma.sync`` tf32 A fragment, ``(D, G, H / 8, H / 8, 2, 32, 4)``. Lane
+    4 g + t holds rows g, g + 8, g, g + 8 at inputs 16 c + 2 kh + 4t, then
+    the one after it (kk = 2c + kh): the K order within each k16 chunk is
+    permuted so that a lane's B values are four adjacent inputs
+    (``csrc/lstm_recurrence_bwd_wide_f32.cu``)."""
+    D, G, H, _ = w.shape
+    # k = 16 c + 4 t + 2 kh + e; column j = (2 mt + hi) H + 8 group + g
+    a = w.float().reshape(D, G, H // 16, 4, 2, 2, 2, 2, H // 8, 8)
+    # -> [group][c][kh][mt][g][t][e][hi]: register e * 2 + hi
+    return a.permute(0, 1, 8, 2, 4, 6, 9, 3, 5, 7).reshape(D, G, H // 8, H // 8, 2, 32, 4) \
+        .contiguous()
 
 
 def recurrence_mma_weights(w: torch.Tensor) -> torch.Tensor:
@@ -2514,8 +2607,9 @@ def recurrence_f32_smem(H: int) -> int:
 
 def recurrence_global_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
     """The copy of ``w (D, G, H, 4H)`` the cluster kernels read past
-    ``WIDE_MAX_THREADS`` units (in f32, and in bf16 when asked for by
-    name: bf16 there runs ``recurrence_mma_weights``' kernels), where a
+    ``WIDE_MAX_THREADS`` units (the f32 forward; the cluster sweep, and the
+    bf16 forward, when asked for by name: past 288 the sweep is a
+    tensor-core one in either dtype), where a
     block's f32 slice no longer fits shared memory: f32, laid out as the
     shared slices are, ``(D, G,
     WIDE_CLUSTER, H, H / 8, 4)`` ([d][g][block][k][unit][gate]), so each
@@ -2661,8 +2755,9 @@ def lstm_recurrence_bwd(
 
     On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
     for its width and dtype: a tensor-core one through
-    :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32` or
-    :func:`lstm_recurrence_bwd_wide_mma` (whose ``.launches`` then counts
+    :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32`,
+    :func:`lstm_recurrence_bwd_wide_mma` or
+    :func:`lstm_recurrence_bwd_wide_f32` (whose ``.launches`` then counts
     it), or the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks
     for the latter by name (to time it beside the others)."""
     _no_graph(xg, w, hs, cs)
@@ -2670,15 +2765,15 @@ def lstm_recurrence_bwd(
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, *_TILE_SWEEP, "lstm_recurrence_bwd_wide_mma"):
+    if kernel not in (None, name, *_TILE_SWEEP, *_WIDE_SWEEP):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     kernel = kernel or recurrence_sweep_kernel(H, cd)
     if kernel in _TILE_SWEEP:
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-    if kernel == "lstm_recurrence_bwd_wide_mma":
-        return lstm_recurrence_bwd_wide_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if kernel in _WIDE_SWEEP:
+        return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
@@ -2710,30 +2805,65 @@ def lstm_recurrence_bwd_wide_mma(
     partial dh summed in rank order); the contract of
     :func:`lstm_recurrence_bwd`. Takes bfloat16 with H % 32 == 0 from 320
     to ``REC_MAX_H`` and raises for the rest."""
+    return _wide_recurrence_sweep(lstm_recurrence_bwd_wide_mma, recurrence_wide_mma_check,
+                                  "rec_bwd_mma", recurrence_mma_weights, xg, valid, w, hs, cs,
+                                  dhs, dhn, dcn, G, compute_dtype)
+
+
+lstm_recurrence_bwd_wide_mma.launches = 0
+
+
+def lstm_recurrence_bwd_wide_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The recurrence's backward sweep in f32 on the tensor cores past 288
+    units, three tf32 passes a product (``csrc/lstm_recurrence_bwd_wide_f32.cu``:
+    the design of :func:`lstm_recurrence_bwd_wide_mma` on an f32 copy of the
+    weight fragments, ``recurrence_f32_weights``, split in registers); the
+    contract of :func:`lstm_recurrence_bwd`. Takes float32 with
+    H % 32 == 0 from 320 to ``REC_MAX_H`` and raises for the rest."""
+    return _wide_recurrence_sweep(lstm_recurrence_bwd_wide_f32, recurrence_wide_f32_check,
+                                  "rec_bwd_f32", recurrence_f32_weights, xg, valid, w, hs, cs,
+                                  dhs, dhn, dcn, G, compute_dtype)
+
+
+lstm_recurrence_bwd_wide_f32.launches = 0
+# the recurrence sweeps past 288 on the tensor cores, by kernel name
+_WIDE_SWEEP = {"lstm_recurrence_bwd_wide_mma": lstm_recurrence_bwd_wide_mma,
+               "lstm_recurrence_bwd_wide_f32": lstm_recurrence_bwd_wide_f32}
+
+
+def _wide_recurrence_sweep(wrapper, check, plan, copy, xg, valid, w, hs, cs, dhs, dhn, dcn, G,
+                           compute_dtype):
+    """The tensor-core recurrence sweeps' body past 288: ``wrapper`` names
+    the kernel (``csrc/<name>.cu``: 8-block clusters reading the weight
+    fragments from L2), ``check(H, dtype)`` refuses what it does not take,
+    ``wide_plan(plan, ...)`` picks its row tile, ``copy(w)`` lays out its
+    weight fragments; it counts its launches. On the CPU the plain twin;
+    under grad mode an operand that requires grad is refused."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
-    cd, name = compute_dtype, "lstm_recurrence_bwd_wide_mma"
+    cd, name = compute_dtype, wrapper.__name__
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-    recurrence_wide_mma_check(H, cd)
+    check(H, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
-    R, tiles, smem = wide_plan("rec_bwd_mma", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    wg = recurrence_mma_weights(w)
+    R, tiles, smem = wide_plan(plan, B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
+    wf = copy(w)
     with torch.cuda.device(dev):
-        err = _kernels(name).lstm_recurrence_bwd_wide_mma(
-            R, xg.data_ptr(), valid8.data_ptr(), wg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        err = getattr(_kernels(name), name)(
+            R, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(), D, T, B, H, G, tiles,
             smem, torch.cuda.current_stream(dev).cuda_stream, None,
         )
     _raise_on_error(name, err)
-    lstm_recurrence_bwd_wide_mma.launches += 1
+    wrapper.launches += 1
     return dxg
-
-
-lstm_recurrence_bwd_wide_mma.launches = 0
 
 
 def lstm_recurrence_bwd_mma(

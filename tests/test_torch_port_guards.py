@@ -61,7 +61,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
                        "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage",
-                       "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma"}
+                       "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
+                       "lstm_recurrence_bwd_wide_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -88,10 +89,13 @@ def test_every_kernel_source_is_built_and_bound():
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
     # the tensor-core lite sweep keeps the 8-block cluster split: both of its
     # products on mma.sync (the dh product through ldmatrix.trans), the
-    # partial sums exchanged through distributed shared memory
+    # partial sums exchanged through distributed shared memory; so does its
+    # instance for uneven unit groups at H = 288 (two more products, the
+    # partials read by mapped 32-bit addresses)
     text = (_build.CSRC / "bilstm_bwd_lite_mma.cu").read_text().rsplit("#include", 1)[1]
-    assert text.count("mma_bf16(") == 2 and "ldmatrix_x4_trans(" in text
+    assert text.count("mma_bf16(") == 4 and text.count("ldmatrix_x4_trans(") == 2
     assert "map_shared_rank(" in text and "launch_wide(" in text
+    assert "recwide::unit_groups(" in text and "recwide::mapa_u32(" in text
     # so does the tensor-core wide forward: its gate product on mma.sync, the
     # new h pushed to every block of the cluster through distributed shared memory
     text = (_build.CSRC / "bilstm_fwd_wide_mma.cu").read_text()
@@ -115,6 +119,16 @@ def test_every_kernel_source_is_built_and_bound():
         assert "mapa_u32(" in body and "map_shared_rank(" not in body
     body = (_build.CSRC / "lstm_recurrence_bwd_wide_mma.cu").read_text().rsplit("#include", 1)[1]
     assert "movmatrix_trans(" in body and "mma_a4(" in body
+    # the f32 sweep past 288 keeps that split and exchange on the header's
+    # helpers, with both products in three tf32 passes (mma3) on one f32
+    # copy of the fragments, split in registers, the dh product's
+    # transposed through movmatrix
+    text = (_build.CSRC / "lstm_recurrence_bwd_wide_f32.cu").read_text()
+    assert '#include "lstm_recurrence_wide_mma.cuh"' in text
+    body = text.rsplit("#include", 1)[1]
+    assert body.count("mma_tf32(") == 3 and body.count("mma3(") == 3
+    assert "split_tf32(" in body and "movmatrix_trans(" in body and "mma_bf16(" not in body
+    assert "launch_wide_dirs(" in body and "ld_dsmem_f2(" in body and "mapa_u32(" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, 288, and for the recurrence op up to 1024 threads with
     # its weight slices read from the global copy)

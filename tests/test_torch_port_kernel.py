@@ -576,15 +576,17 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
     (320, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
     (512, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
     (1024, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
-    (320, torch.float32, "lstm_recurrence_bwd"), (512, torch.float32, "lstm_recurrence_bwd"),
-    (1024, torch.float32, "lstm_recurrence_bwd"),
+    (320, torch.float32, "lstm_recurrence_bwd_wide_f32"),
+    (512, torch.float32, "lstm_recurrence_bwd_wide_f32"),
+    (1024, torch.float32, "lstm_recurrence_bwd_wide_f32"),
     (48, torch.bfloat16, None), (48, torch.float32, None), (64, torch.float16, None),
     (1056, torch.bfloat16, None)])
 def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     """bf16 at H = 32 / 64 takes the tensor-core sweep, f32 there its three
-    tf32 passes (whose pre-split weights fit one block); bf16 past 288 the
-    tensor-core sweep of the wide widths, up to the op's 1024 on the card;
-    the cluster sweep keeps the rest from H = 96 (f32 to 1024, bf16 to 288)."""
+    tf32 passes (whose pre-split weights fit one block); past 288 the
+    tensor-core sweeps of the wide widths, bf16 and (three tf32 passes)
+    f32, up to the op's 1024 on the card; the cluster sweep keeps the rest
+    from H = 96 to 288."""
     if kernel is None:
         with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
             lstm_cuda.recurrence_sweep_kernel(H, dtype)
@@ -592,11 +594,14 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     assert lstm_cuda.recurrence_sweep_kernel(H, dtype) == kernel
     if kernel.endswith("_bwd_mma"):
         assert lstm_cuda.recurrence_mma_smem(H) <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
-    if kernel.endswith("f32"):
+    if kernel == "lstm_recurrence_bwd_f32":
         assert lstm_cuda.recurrence_f32_smem(H) <= lstm_cuda.SMEM_LIMIT
     if kernel.endswith("wide_mma"):
         assert min(lstm_cuda.recurrence_wide_mma_smem("bwd", H, R) for R in
                    lstm_cuda.REC_WIDE_MMA_ROWS["bwd"][1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("wide_f32"):
+        assert min(lstm_cuda.recurrence_wide_f32_smem(H, R) for R in
+                   lstm_cuda.REC_WIDE_F32_ROWS[1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,dtype,kernel", [
@@ -623,8 +628,9 @@ def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
 def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
     and bf16 names the forward, sweep and wgrad it named before the
-    tensor-core kernels past 288, except the bf16 forward and sweep there;
-    what was refused stays refused."""
+    tensor-core kernels past 288, except the bf16 forward and sweep there
+    and the f32 sweep there (three tf32 passes); what was refused stays
+    refused."""
     def parent(H, dtype):
         sweep = "lstm_recurrence_bwd"
         if H in (32, 64):
@@ -646,6 +652,8 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
             want = parent(H, dtype)
             if dtype == torch.bfloat16 and H > 288:
                 want = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma", want[2])
+            if dtype == torch.float32 and H > 288:
+                want = (want[0], "lstm_recurrence_bwd_wide_f32", want[2])
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
 
 
@@ -717,6 +725,164 @@ def test_recurrence_mma_weights_layout():
             assert torch.equal(torch.cat([b.T[g, 2 * t:2 * t + 2] for b in blocks]),
                                frag(A.T, lane))
 
+
+
+
+@pytest.mark.parametrize("H,want", [(320, {16: 63488, 32: 116736}),
+                                    (512, {16: 100352, 32: 184320}),
+                                    (544, {16: 107520}), (1024, {16: 198656})])
+def test_recurrence_wide_f32_smem_and_plan(H, want):
+    """The shared memory of the f32 tensor-core recurrence sweep past 288 by
+    row tile, as its source lays it out (the f32 h_prev tile and the
+    block's f32 dgates tile, rows padded by 16 floats; the f32 partial dh
+    of all units, rows padded to 8 mod 16); the plan takes the fewest
+    waves, then the smallest tile; it refuses bf16, widths up to 288 and
+    past 1024, and a tile with no instance."""
+    rows = lstm_cuda.REC_WIDE_F32_ROWS[1 if H <= 512 else 2]
+    assert {R: lstm_cuda.recurrence_wide_f32_smem(H, R) for R in rows} == want
+    groups, R = -(-H // 64), 32
+    if H == 512:
+        assert want[R] == R * (H + 16) * 4 + R * (32 * groups + 16) * 4 + H * 40 * 4
+    assert all(b <= lstm_cuda.SMEM_LIMIT for b in want.values())
+    assert lstm_cuda.wide_smem("rec_bwd_f32", H, rows[0]) == want[rows[0]]
+    # the train step's shape on a card holding 15 clusters at once: 400 rows in 5 groups, D = 2
+    R, tiles, smem = lstm_cuda.wide_plan("rec_bwd_f32", 400, 5, H, lambda R, b: 15, 2)
+    waves = {r: -(-2 * 5 * -(-80 // r) // 15) for r in want}
+    assert waves[R] == min(waves.values()) and R == min(r for r in want if waves[r] == waves[R])
+    assert tiles == 5 * -(-80 // R) and smem == want[R]
+    assert lstm_cuda.wide_plan("rec_bwd_f32", 40, 5, H, lambda R, b: 15, 2)[0] == 16
+    for bad in (288, 1056):
+        with pytest.raises(ValueError, match="from 320 to 1024"):
+            lstm_cuda.recurrence_wide_f32_smem(bad, 16)
+    with pytest.raises(ValueError, match="takes compute dtype float32"):
+        lstm_cuda.recurrence_wide_f32_check(H, torch.bfloat16)
+    with pytest.raises(ValueError, match="no instance for a row tile of 24"):
+        lstm_cuda.recurrence_wide_f32_smem(H, 24)
+
+
+def test_recurrence_f32_weights_layout():
+    """The f32 weight copy the f32 tensor-core sweep past 288 reads, held
+    against the tf32 mma.sync A-fragment layout with the K order the kernel
+    uses: lane 4 g + t of (group, k8 step kk = 2c + kh, m16 half mt) holds
+    rows g, g + 8 of the group's permuted gate rows (row 8 * gate +
+    unit % 8) at input 16 c + 2 kh + 4t (registers 0, 1) and the input after
+    it (registers 2, 3). Then the dh product's use: each 8x8 block of two
+    fragments transposed (as movmatrix does on its two b16 halves) is the A
+    fragment of w's rows (units 16 m + 4 (g >> 1) + (g & 1), and two
+    further for rows g + 8) by gate columns 16 mt + 8 hi + 2t (+ 1)."""
+    torch.manual_seed(0)
+    D, G, H = 2, 3, 352
+    w = torch.randn(D, G, H, 4 * H)
+    wf = lstm_cuda.recurrence_f32_weights(w)
+    assert wf.shape == (D, G, H // 8, H // 8, 2, 32, 4) and wf.dtype == torch.float32
+
+    def col(p):  # permuted gate row of the whole layer -> w's column
+        group, pl = divmod(p, 32)
+        return (pl // 8) * H + 8 * group + pl % 8
+
+    for d, g_, group, kk, mt in ((0, 0, 0, 0, 0), (1, 2, 43, 21, 1), (0, 1, 17, 5, 1)):
+        c, kh = divmod(kk, 2)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            k = 16 * c + 2 * kh + 4 * t
+            rows = [col(32 * group + 16 * mt + r) for r in (g, g + 8)]
+            want = torch.stack([w[d, g_, k, rows[0]], w[d, g_, k, rows[1]],
+                                w[d, g_, k + 1, rows[0]], w[d, g_, k + 1, rows[1]]])
+            assert torch.equal(wf[d, g_, group, kk, mt, lane], want)
+    d, g_, group = 1, 1, 5
+    for m, mt, hi in ((0, 0, 0), (7, 1, 1), (21, 0, 1)):
+        got = {}
+        for kh in range(2):
+            F = wf[d, g_, group, 2 * m + kh, mt]
+            # the 8x8 block of gate rows 8 hi ..: lane (g, t) holds columns 2t, 2t + 1
+            X = torch.stack([torch.stack([F[4 * g + c2 // 2, hi + 2 * (c2 % 2)]
+                                          for c2 in range(8)]) for g in range(8)])
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                got[lane, kh], got[lane, kh + 2] = X[2 * t, g], X[2 * t + 1, g]
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            u0, p0 = 16 * m + 4 * (g >> 1) + (g & 1), 32 * group + 16 * mt + 8 * hi + 2 * t
+            want = [w[d, g_, u0, col(p0)], w[d, g_, u0 + 2, col(p0)],
+                    w[d, g_, u0, col(p0 + 1)], w[d, g_, u0 + 2, col(p0 + 1)]]
+            assert [float(got[lane, r]) for r in range(4)] == [float(v) for v in want]
+
+
+@pytest.mark.parametrize("H", [320, 512])
+def test_recurrence_wide_f32_wrapper_takes_plain_version_on_cpu(H):
+    """The f32 tensor-core sweep past 288 takes the plain twin for CPU
+    tensors, counting no launch, and refuses operands that require grad;
+    ``lstm_recurrence_bwd`` hands f32 past 288 to it only on the card, and
+    reaches it and the global-weight instance by name."""
+    T, D, B, G, cd = 3, 2, 4, 2, torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
+                                                  "holes")
+    wrappers = (lstm_cuda.lstm_recurrence_bwd_wide_f32, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    hs, cs = recurrence_fwd(xg, valid, w, G, cd)[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    want = recurrence_sweep(*args)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd_wide_f32(*args), want)
+    for kernel in (None, "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_bwd"):
+        assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args, kernel=kernel), want)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_wide_f32(xg, valid, w.clone().requires_grad_(), *args[3:])
+
+
+def test_lite_mma_plan_at_288():
+    """The tensor-core lite sweep at H = 288 (36 unit groups, 4 or 5 a
+    block): its shared memory by row tile, as the uneven instance lays it
+    out (the bf16 W_hh slice of the 5-group block, two h_prev buffers, the
+    f32 xg slice, c_prev and two dy streams and the bf16 dgates tile, each
+    sized for 40 units, and ONE f32 partial buffer of 288 units x 40); the
+    plan at the train step's 400 rows in 5 groups takes 32-row tiles
+    (15 a direction: two waves of 15 or 16 clusters), the largest that fit.
+    Its check refuses f32 there and the bf16 widths no instance takes."""
+    assert lstm_cuda.wide_smem("lite_mma", 288, 32) == (
+        160 * 296 * 2 + 2 * 32 * 296 * 2 + 32 * 164 * 4 + 3 * 32 * 40 * 2 + 32 * 168 * 2
+        + 288 * 40 * 4) == 218112 <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_smem("lite_mma", 288, 16) == 179456
+    assert all(lstm_cuda.wide_smem("lite_mma", 288, r) > lstm_cuda.SMEM_LIMIT for r in (40, 80))
+    for clusters in (15, 16):
+        assert lstm_cuda.wide_plan("lite_mma", 400, 5, 288, lambda R, s: clusters) == (
+            32, 15, 218112)
+    assert lstm_cuda.wide_plan("lite_mma", 400, 1, 288, lambda R, s: 16) == (32, 13, 218112)
+    assert lstm_cuda.wide_plan("lite_mma", 40, 1, 288, lambda R, s: 16)[:2] == (16, 3)
+    assert lstm_cuda.LITE_MMA_UNEVEN_ROWS == (16, 32)
+    lstm_cuda.lite_mma_check(288, torch.bfloat16)
+    for H, dtype in ((288, torch.float32), (320, torch.bfloat16), (192, torch.bfloat16),
+                     (96, torch.bfloat16)):
+        with pytest.raises(ValueError, match="bilstm_bwd_lite_mma kernel takes bfloat16"):
+            lstm_cuda.lite_mma_check(H, dtype)
+
+
+def test_lite_mma_uneven_plan_at_256():
+    """H = 288's instance for uneven unit groups, asked for by name at
+    H = 256 (4 groups a block) to be timed against that width's kernel: its
+    shared memory is the 256 kernel's less one of the two partial buffers
+    (the C entry tells the two apart by it), its plan takes 16- and 32-row
+    tiles (32 at the train step's 400 rows in 5 groups: two waves of 15),
+    and the plan of every width the dispatch names is what it was."""
+    fifteen = lambda R, smem: 15  # noqa: E731
+    assert lstm_cuda.wide_smem("lite_mma_uneven", 256, 32) == (
+        128 * 264 * 2 + 2 * 32 * 264 * 2 + 32 * 132 * 4 + 3 * 32 * 32 * 2 + 32 * 136 * 2
+        + 256 * 40 * 4) == 174080 == lstm_cuda.wide_smem("lite_mma", 256, 32) - 256 * 40 * 4
+    assert lstm_cuda.wide_smem("lite_mma_uneven", 256, 16) == (
+        lstm_cuda.wide_smem("lite_mma", 256, 16) - 256 * 40 * 4)
+    assert lstm_cuda.wide_smem("lite_mma_uneven", 288, 32) == lstm_cuda.wide_smem(
+        "lite_mma", 288, 32) == 218112
+    assert lstm_cuda.wide_plan("lite_mma_uneven", 400, 5, 256, fifteen) == (32, 15, 174080)
+    assert lstm_cuda.wide_plan("lite_mma_uneven", 40, 1, 256, fifteen)[:2] == (16, 3)
+    assert lstm_cuda.wide_plan("lite_mma", 400, 5, 256, fifteen) == (32, 15, 215040)
+    # on the CPU the wrapper runs the plain twin, whatever it is asked for
+    T, B, H, G, cd = 3, 4, 256, 1, torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [8], H, G, cd, "cpu")
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:1], dy[2:3], dhn, dcn, cd)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_mma(*args, uneven=True),
+                       bidir_layer_sweep_lite(*args))
 
 
 # ------------------------------------- the tensor-core forward and wgrad
@@ -1215,7 +1381,7 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (32, torch.bfloat16, "bilstm_bwd_lite"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_bwd_lite"),   # the 288-thread instance
-        (288, torch.bfloat16, "bilstm_bwd_lite"),
+        (288, torch.bfloat16, "bilstm_bwd_lite_mma"),  # 4 or 5 unit groups a block
         (320, torch.float32, None),
         (256, torch.float16, None),
     ],
@@ -1268,7 +1434,7 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             gates, lite = lstm_cuda.gates_kernel(Ep, H, dtype), lstm_cuda.lite_kernel(H, dtype)
             bf16 = dtype == torch.bfloat16
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates")
-            assert lite == ("bilstm_bwd_lite_mma" if bf16 and H in (128, 256)
+            assert lite == ("bilstm_bwd_lite_mma" if bf16 and H in (128, 256, 288)
                             else "bilstm_bwd_lite")
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
@@ -2700,13 +2866,16 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     (their 288-thread instances: the bf16 layers JAX's lite plan takes past
     256, padded to 288) against their plain twins: 60 rows in 5 weight
     groups, ragged lengths, two dy streams; the row tiles ``wide_plan``
-    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16."""
+    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16. In bf16 the lite
+    sweep's dispatch names the tensor-core kernel there, so the CUDA-core
+    one is asked for by name."""
     H, G, B = 288, 5, 60
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
                                                                  cuda_device, seed=T)
     assert lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide"
-    assert lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite"
+    assert lstm_cuda.lite_kernel(H, dtype) == (
+        "bilstm_bwd_lite" if dtype == torch.float32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
@@ -2717,7 +2886,8 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
-    _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")],
+           [bidir_layer_sweep_lite(*args)], tol)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
 
@@ -2834,3 +3004,183 @@ def test_recurrence_op_past_1024_raises_on_card(cuda_device):
     assert lstm_cuda.lstm_recurrence_fwd.launches == before
     hs, hn, cn = fused_lstm_recurrence(xg.cpu(), valid.cpu(), w.cpu(), G, torch.float32)
     assert hs.shape == (T, D, B, H) and torch.isfinite(hs).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B,rows", [(5, 60, 16), (5, 60, 32), (1, 70, 32), (3, 27, 16),
+                                      (5, 400, 32), (2, 30, 32)])
+def test_lite_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, B, rows, T):
+    """The tensor-core lite sweep at H = 288 (its instance for 4 or 5 unit
+    groups a block, one partial buffer) at each row tile it is built for
+    (pinned with monkeypatch on the plan's candidates) against its plain
+    twin at the repo's bf16 tolerance, 3e-2 x max(1, max|ref|): G = 1, 2, 3
+    and 5, groups of 12, 70, 9, 80 and 15 rows (short tiles), lengths of 0,
+    1 and T, T = 1; 0, 1 and 2 dy streams a direction, with and without
+    final-state cotangents; the dispatch names it and its wrapper counts
+    each launch; the 288-thread CUDA-core sweep by name agrees too."""
+    monkeypatch.setattr(lstm_cuda, "LITE_MMA_UNEVEN_ROWS", (rows,))
+    H, cd = 288, torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd,
+                                                                 cuda_device, seed=B + T)
+    assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_mma"
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    for ny, final in ((2, True), (1, False), (0, True), (2, False)):
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+                dhn if final else None, dcn if final else None, cd)
+        want = bidir_layer_sweep_lite(*args)
+        _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B,rows", [(5, 60, 16), (5, 400, 32), (1, 70, 32), (3, 27, 16)])
+def test_lite_mma_uneven_at_256_matches_plain_on_card(cuda_device, monkeypatch, G, B, rows, T):
+    """H = 288's instance for uneven unit groups, asked for by name at
+    H = 256 (4 groups a block), at each row tile it is built for against
+    its plain twin at 3e-2 x max(1, max|ref|): 0-2 dy streams, with and
+    without final-state cotangents, short tiles, lengths of 0, 1 and T.
+    At 128, which it is not built for, it raises and launches nothing."""
+    monkeypatch.setattr(lstm_cuda, "LITE_MMA_UNEVEN_ROWS", (rows,))
+    H, cd = 256, torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd,
+                                                                 cuda_device, seed=B + T)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    for ny, final in ((2, True), (1, False), (0, True)):
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+                dhn if final else None, dcn if final else None, cd)
+        _close([lstm_cuda.bilstm_bwd_lite_mma(*args, uneven=True)],
+                [bidir_layer_sweep_lite(*args)], 3e-2)
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, 8, [128], 128, 1, cd,
+                                                                 cuda_device)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    before = lstm_cuda.bilstm_bwd_lite_mma.launches
+    with pytest.raises(ValueError, match="uneven instance takes H = 256 and 288"):
+        lstm_cuda.bilstm_bwd_lite_mma(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:1],
+                                      dy[2:3], None, None, cd, uneven=True)
+    assert lstm_cuda.bilstm_bwd_lite_mma.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E_parts,G", [([272], 5), ([272, 272], 1)])
+def test_lite_mma_at_288_takes_the_model_layers_on_card(cuda_device, E_parts, G):
+    """Both layers of the bf16 model at embedding 272 (run at H = 288) at
+    the train step's 400 rows and T = 300: ``layer_bwd`` launches the
+    tensor-core lite sweep and not the CUDA-core one, and agrees with the
+    plain layer at the true widths (3e-2 x max(1, max|ref|))."""
+    H, cd, T, B = 272, torch.bfloat16, 300, 400
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=G)
+    assert lstm_cuda.lite_kernel(lstm_cuda.padded_width(E_parts, H, cd), cd) == \
+        "bilstm_bwd_lite_mma"
+    ny = 2 if len(E_parts) == 1 else 1
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd,
+                                                       with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn, dcn, cd)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 0]
+    want = bidir_layer_bwd(*args)
+    flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+    _close(flat(got), flat(want), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D,G,B,T,mask", [
+    (320, 2, 2, 16, 12, "lengths"), (320, 1, 5, 30, 9, "holes"), (352, 3, 1, 9, 7, "holes"),
+    (512, 2, 5, 50, 10, "lengths"), (512, 3, 2, 20, 7, "holes"), (512, 2, 1, 10, 1, "holes"),
+    (512, 1, 1, 81, 5, "off"), (512, 2, 5, 400, 3, "lengths"), (544, 2, 2, 12, 6, "holes"),
+    (1024, 2, 2, 12, 6, "holes"), (992, 2, 1, 9, 5, "lengths"), (1024, 1, 5, 10, 1, "off")])
+def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, mask):
+    """The f32 tensor-core sweep past 288 (three tf32 passes) against its
+    plain twin at 1e-4 x max(1, max|ref|): D = 1, 2 and 3; G = 1, 2 and 5;
+    masks from lengths, with holes (an all-off and an all-on row) and all
+    off; T = 1; groups of 8, 6, 9, 10, 80 and 81 rows, which leave short
+    row tiles; up to 512 (32- or 16-row tiles) and past it (two unit groups
+    a warp, 16-row tiles) to the stop at 1024; dhs, dhn and dcn None in
+    turn. The dispatch names it (its wrapper counts the launches), and the
+    global-weight instance by name agrees."""
+    cd, tol = torch.float32, 1e-4
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
+                                                  "holes" if mask == "off" else mask, seed=H + T)
+    if mask == "off":
+        valid = torch.zeros_like(valid)
+    assert lstm_cuda.recurrence_sweep_kernel(H, cd) == "lstm_recurrence_bwd_wide_f32"
+    wrappers = (lstm_cuda.lstm_recurrence_bwd_wide_f32, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    hs, cs = recurrence_fwd(xg, valid, w, G, cd)[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    dxg = recurrence_sweep(*args)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args)], [dxg], tol)
+    for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
+                 (xg, valid, w, hs, cs, dhs, None, dcn, G, cd),
+                 (xg, valid, w, hs, cs, None, None, None, G, cd)):
+        _close([lstm_cuda.lstm_recurrence_bwd_wide_f32(*part)], [recurrence_sweep(*part)], tol)
+    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [dxg], tol)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [320, 512])
+def test_recurrence_wide_f32_autograd_on_card(cuda_device, H):
+    """``fused_lstm_recurrence`` in f32 past 288 on the card, through the
+    global-weight forward, the f32 tensor-core sweep and the CUDA-core
+    wgrad: outputs and the gradients of xg and w equal the CPU plain
+    path's within 1e-4 x max(1, max|ref|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, D, B, G, cd = 10, 2, 12, 2, torch.float32
+    cpu = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes", seed=H)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd_wide_f32,
+                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_wgrad)
+    before = [f.launches for f in wrappers]
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xg, valid, w, dhs, dhn, dcn = (t.to(dev) for t in cpu)
+        xg.requires_grad_(), w.requires_grad_()
+        out = fused_lstm_recurrence(xg, valid, w, G, cd)
+        torch.autograd.backward(out, [dhs, dhn, dcn])
+        got[dev.type] = [xg.grad.cpu(), w.grad.cpu(), *(o.detach().cpu() for o in out)]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 1]
+    _close(got["cuda"], got["cpu"], 1e-4)
+
+
+@pytest.mark.cuda
+def test_recurrence_wide_f32_rejects_bad_operands_on_card(cuda_device):
+    """The f32 tensor-core sweep past 288 refuses what its kernel does not
+    take, before any launch: bf16, a width up to 288, a weight of the wrong
+    dtype, a mask of the wrong shape, an unknown kernel name, and operands
+    that require grad."""
+    T, D, B, G, H = 3, 2, 4, 1, 320
+    cd = torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, "holes")
+    hs = torch.zeros(T, D, B, H, device=cuda_device)
+    wrapper = lstm_cuda.lstm_recurrence_bwd_wide_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="takes compute dtype float32"):
+        wrapper(xg, valid, w.to(torch.bfloat16), hs, hs, None, None, None, G, torch.bfloat16)
+    small = recurrence_case(T, D, B, 288, G, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        wrapper(*small[:3], small[3], small[3], None, None, None, G, cd)
+    with pytest.raises(ValueError, match="bilstm kernel: w"):
+        wrapper(xg, valid, w.to(torch.bfloat16), hs, hs, None, None, None, G, cd)
+    with pytest.raises(ValueError, match="valid must be"):
+        wrapper(xg, valid[:, :1], w, hs, hs, None, None, None, G, cd)
+    with pytest.raises(ValueError, match="no sweep kernel named"):
+        lstm_cuda.lstm_recurrence_bwd(xg, valid, w, hs, hs, None, None, None, G, cd,
+                                      kernel="lstm_recurrence_bwd_f64")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        wrapper(xg.clone().requires_grad_(), valid, w, hs, hs, None, None, None, G, cd)
+    assert wrapper.launches == before

@@ -92,6 +92,33 @@ def test_every_width_jax_takes_names_hand_kernels(dtype):
     assert taken == (242 if dtype == torch.float32 else 286) * len(SHAPES)
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
+    """Every layer of the grid above (H from 1 to 288 at the four shapes)
+    that takes the wide route names, at its padded shape, the lite sweep it
+    named before the tensor-core instance at 288: the tensor-core sweep in
+    bf16 at H = 128 and 256, the CUDA-core one in f32 and at the other bf16
+    widths; except bf16 at H = 288, which the tensor-core sweep now takes
+    (the layers of 257-288 units, embedding 272 among them)."""
+    wide = set()
+    for H in range(1, 289):
+        for what, (B, G, parts) in SHAPES.items():
+            E_parts = parts(H)
+            try:
+                route = lstm_cuda.layer_route(E_parts, H, dtype)
+            except ValueError:
+                continue
+            if route != "wide":
+                continue
+            Hp = lstm_cuda.padded_width(E_parts, H, dtype)
+            wide.add(Hp)
+            bf16 = dtype == torch.bfloat16
+            parent = "bilstm_bwd_lite_mma" if bf16 and Hp in (128, 256) else "bilstm_bwd_lite"
+            want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
+            assert lstm_cuda.lite_kernel(Hp, dtype) == want, (what, H, Hp)
+    assert 288 in wide and 256 in wide and 96 in wide
+
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
     ([80], 80, torch.float32, 80, "resident"),     # the one-stage f32 sweep
     ([80, 80], 80, torch.float32, 96, "wide"),
