@@ -45,8 +45,9 @@ exits non-zero with no result):
    streams a direction) ``bilstm_fwd.cu`` (both variants) in f32 and
    bf16, ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last
    gate tile masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name),
-   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns
-   with ``bilstm_bwd.cu`` by name) and ``bilstm_bwd.cu`` in bf16; then
+   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 and the
+   tensor-core sweep ``bilstm_bwd_mma`` (its <80, 80> instance) in bf16,
+   each in turns with ``bilstm_bwd.cu`` by name; then
    each kernel, the
    new and the old in turns (new, old, old, new, in the same run), and a
    PyTorch yardstick
@@ -67,7 +68,8 @@ exits non-zero with no result):
    in bf16: layer 0's forward (both variants) ``bilstm_fwd.cu``, its wgrad
    ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` in bf16 (and
    ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
-   f32 and ``bilstm_bwd.cu`` in bf16; the stacked layer padded to H = 96 on the
+   f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
+   stacked layer padded to H = 96 on the
    wide route; then one step's gradients (and at embedding 80 an eval step)
    on the card held against the port's CPU plain path at a small size, in
    f32 and bf16 (also at embedding 80, two layers);
@@ -81,19 +83,22 @@ exits non-zero with no result):
    the true and the padded widths and cuDNN at the true ones; the
    two-layer model at embedding 100 at the train shape (80 pairs,
    T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 and at
-   272 in bf16, each with the kernels it must launch and must not; the
-   CUDA-core wide forward (both variants) and lite sweep in bf16 at their
-   main paths' shapes (layer 0 at embedding 272, their 288-thread
-   instances, and the stacked layer at embedding 80, run at H = 96)
+   272 in bf16 (the tensor-core forward and lite sweep, never the
+   CUDA-core ones), each with the kernels it must launch and must not;
+   the CUDA-core wide forward (both variants) and lite sweep in bf16 at
+   the stacked layer at embedding 80 (run at H = 96, their main path) and
+   by name on layer 0 at embedding 272 (their 288-thread instances),
    against their twins, timed beside their bounds and cuDNN; at 288 the
-   tensor-core lite sweep ``bilstm_bwd_lite_mma`` (its instance for
-   uneven unit groups), which the dispatch names there, against its twin
-   and timed in turns with the 288-thread CUDA-core sweep by name (new,
-   old, old, new); then a
+   tensor-core forward (both variants) ``bilstm_fwd_wide(_train)_mma``
+   and lite sweep ``bilstm_bwd_lite_mma`` (their instances for uneven
+   unit groups), which the dispatch names there, against their twins and
+   each timed in turns with the 288-thread CUDA-core kernel by name (new,
+   old, old, new), the forward also at each of its row tiles; then a
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
-   112 and (bf16) 272 and of the recurrence backend at embedding 80 (run
+   112, (bf16) 272 and (bf16) 72, whose layer 0 is the main path of
+   ``bilstm_bwd.cu``, and of the recurrence backend at embedding 80 (run
    at 96), each with the kernels it must launch;
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
@@ -179,9 +184,10 @@ exits non-zero with no result):
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
 11. the ``kernels`` line (thirty kernels, each with launches > 0 on a
-    main path; the 288-thread instances, the tensor-core lite sweep at
-    288, the bf16 wgrad at H = 80 and the f32 recurrence op past 288 as
-    ``h288_*``, ``h80_*`` and ``h512_*`` fields of their kernels' entries;
+    main path; the 288-thread instances, the tensor-core forward and lite
+    sweep at 288, the bf16 sweep and wgrad at H = 80 and the f32
+    recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*`` fields
+    of their kernels' entries;
     the bf16 op past 288 and the f32 sweep past 288 as entries of their
     own), the card's name and power limit, and the result.
 
@@ -922,27 +928,28 @@ def embedding_80_kernels(dev) -> dict:
     rows, T = 1500), the main path of these kernels, in f32 and bf16: in
     f32 the forward (both variants) ``bilstm_fwd.cu``, the sweep
     ``bilstm_bwd_f32_onestage.cu`` (three tf32 passes) and wgrad
-    ``bilstm_wgrad.cu``; in bf16 ``bilstm_fwd.cu``, ``bilstm_bwd.cu`` and
-    ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H = 320; the other
-    tensor-core kernels take H <= 64). Each is held against its plain twin
-    with the main path's lengths (groups at 0, 1 and T; in f32
-    ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``), then timed
-    at full lengths beside the twin (timed once, in the check), its bound
-    (the one-stage sweep at 495/3 TFLOP/s, the others at their dtype's
-    rate), cuDNN's one-layer training forward, inference forward and
-    backward for the input in the same dtype, and cuBLAS's products for
-    wgrad, TF32 off; the one-stage sweep in turns with ``bilstm_bwd.cu`` by
-    name and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old,
-    old, new). One dict per dtype and kernel: "fwd", "fwd_eval", "bwd",
-    "wgrad"."""
+    ``bilstm_wgrad.cu``; in bf16 ``bilstm_fwd.cu``, the tensor-core sweep
+    ``bilstm_bwd_mma.cu`` (its <80, 80> instance) and
+    ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H = 320). Each is
+    held against its plain twin with the main path's lengths (groups at 0,
+    1 and T; ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``),
+    then timed at full lengths beside the twin (timed once, in the check),
+    its bound (the one-stage sweep at 495/3 TFLOP/s, the others at their
+    dtype's rate), cuDNN's one-layer training forward, inference forward
+    and backward for the input in the same dtype, and cuBLAS's products
+    for wgrad, TF32 off; the sweep in turns with ``bilstm_bwd.cu`` by name
+    in both dtypes and the bf16 wgrad with ``bilstm_wgrad.cu`` by name
+    (new, old, old, new). One dict per dtype and kernel: "fwd", "fwd_eval",
+    "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     E_parts, H, G, ny = [80], 80, G_TRAIN, 2
     picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
-              torch.bfloat16: ("bilstm_fwd", "bilstm_bwd", "bilstm_wgrad_mma")}
-    # the kernel each dtype's yardstick by name takes the same operands to
-    by_name = {"bwd": (torch.float32, "bilstm_bwd"), "wgrad": (torch.bfloat16, "bilstm_wgrad")}
+              torch.bfloat16: ("bilstm_fwd", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
+    # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
+    by_name = {("bwd", torch.float32): "bilstm_bwd", ("bwd", torch.bfloat16): "bilstm_bwd",
+               ("wgrad", torch.bfloat16): "bilstm_wgrad"}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -978,12 +985,12 @@ def embedding_80_kernels(dev) -> dict:
                                                    kernel="bilstm_wgrad")}
             if full:
                 for k, call in calls.items():
-                    if by_name.get(k, (None,))[0] == cd:
+                    if (k, cd) in by_name:
                         # new, old, old, new: both kernels in one run, on one card
                         out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
                             call, old[k], 3)
                         out[k]["cuda_core_bound_ms"], _ = bound(
-                            [(*work[k], kernel_peak(torch.float32, by_name[k][1]))])
+                            [(*work[k], kernel_peak(torch.float32, by_name[k, cd]))])
                     else:
                         out[k]["ms"] = time_ms(call, 3)
                     add_bounds(out[k], {k: work[k]}, cd, peaks)
@@ -1005,12 +1012,11 @@ def embedding_80_kernels(dev) -> dict:
                                for n, a, b in zip(gnames, flat(calls["bwd"]()), flat(ref))},
                        "wgrad": {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
                            ("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
-                if f32:
-                    res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
-                        gnames, flat(old["bwd"]()), flat(ref))})
-                    out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
-                        flat(calls["bwd"]()), flat(ref)))
-                else:
+                res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    gnames, flat(old["bwd"]()), flat(ref))})
+                out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
+                    flat(calls["bwd"]()), flat(ref)))
+                if not f32:
                     res["wgrad"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
                                          zip(("dW_ih", "dW_hh"), old["wgrad"](), ref_w)})
                     out["wgrad"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
@@ -1306,15 +1312,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # train steps: layer 0 (E = H = 80) is resident, its forward (both
     # variants) bilstm_fwd.cu, its wgrad bilstm_wgrad.cu in f32 and
     # bilstm_wgrad_mma.cu (the masked gate tile) in bf16, its sweep the
-    # one-stage 3xTF32 kernel in f32 and bilstm_bwd.cu in bf16; the stacked
-    # layer (E = 2 x 80) runs padded to H = 96 on the wide route
+    # one-stage 3xTF32 kernel in f32 and the tensor-core bilstm_bwd_mma.cu
+    # in bf16, never bilstm_bwd.cu; the stacked layer (E = 2 x 80) runs
+    # padded to H = 96 on the wide route
     e80 = {}
     for dtype, expect, never in (
         (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates", "bilstm_wgrad_f32",
                          "bilstm_wgrad"),
-         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_gates_mma", "bilstm_wgrad_mma")),
-        (torch.bfloat16, ("bilstm_bwd", "bilstm_gates_mma", "bilstm_wgrad_mma"),
-         ("bilstm_bwd_f32_onestage", "bilstm_bwd_mma", "bilstm_gates", "bilstm_wgrad_f32",
+         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
+          "bilstm_wgrad_mma")),
+        (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_gates_mma", "bilstm_wgrad_mma"),
+         ("bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates", "bilstm_wgrad_f32",
           "bilstm_wgrad")),
     ):
         e80[str(dtype).replace("torch.", "")] = f32_steps(
@@ -1325,11 +1333,12 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
             eval_step=True, dtype=dtype, embedding_size=80)
     grad_check = train_grad_check(dev)
     grad_check_80 = {str(dtype).replace("torch.", ""): train_grad_check(
-        dev, dtype=dtype, eval_step=True, expect=expect, embedding_size=80)
+        dev, dtype=dtype, eval_step=True, expect=expect, never=("bilstm_bwd",),
+        embedding_size=80)
         for dtype, expect in (
             (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_layer_fwd", "bilstm_bwd_lite",
                              "bilstm_fwd_wide", "bilstm_wgrad_f32", "bilstm_wgrad")),
-            (torch.bfloat16, ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_bwd_lite",
+            (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_bwd_lite",
                               "bilstm_fwd_wide", "bilstm_wgrad_mma")))}
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
@@ -1382,6 +1391,7 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
                         "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel",
                         "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
+                        "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
@@ -1478,23 +1488,24 @@ RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
 # and the stacked layer at embedding 112 (128, wide), layer 0 at embedding
 # 50 (H 64, E 56 in f32 and 64 in bf16, resident), both layers at embedding
 # 100 (H 128, parts of 112, wide) and at 272 (288, wide: the 288-thread
-# CUDA-core wide kernels in f32, and in bf16 the forward, the sweep being
-# the tensor-core one)
+# CUDA-core wide kernels in f32, in bf16 the tensor-core forward and sweep,
+# their instances for uneven unit groups)
 PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 112, G_TRAIN),
                  (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
                  (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
-# the wide route's kernels, by dtype (the tensor-core ones at 128 and 256;
-# in bf16 at 96 the CUDA-core forward and sweep, at 288 the CUDA-core
-# forward and the tensor-core sweep)
+# the wide route's kernels, by dtype (the tensor-core ones at 128, 256 and
+# 288; in bf16 at 96 the CUDA-core forward and sweep)
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
             "bilstm_wgrad_f32")
-WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
-# the kernels each one's gradient step and eval step must launch
+# the kernels each one's gradient step and eval step must launch (at 72 in
+# bf16 layer 0, E = H = 72, is the main path of bilstm_bwd.cu, which the
+# tensor-core sweep does not take: H % 16 != 0)
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1508,6 +1519,8 @@ WIDTH_STEPS = (
     ("layer", 100, torch.float32, WIDE_F32),
     ("layer", 100, torch.bfloat16, WIDE_BF16),
     ("layer", 272, torch.bfloat16, WIDE_288_BF16),
+    ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd",
+                                   "bilstm_wgrad_mma", "bilstm_fwd_wide", "bilstm_bwd_lite")),
     ("layer", 112, torch.float32, ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
                                    "bilstm_bwd_lite", "bilstm_wgrad_f32")),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
@@ -1600,25 +1613,30 @@ def padded_layer_timings(dev) -> list:
 
 
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
-                           seed=SEED + 50, lite_want="bilstm_bwd_lite_mma") -> dict:
+                           seed=SEED + 50, fwd_want="bilstm_fwd_wide_mma",
+                           lite_want="bilstm_bwd_lite_mma") -> dict:
     """The CUDA-core wide forward (both variants) and lite sweep in bf16 at
-    the widths no tensor-core wide forward takes, at their main paths'
-    shapes: by default layer 0 of the bf16 two-layer model at embedding
-    272 (E = 272, run at H = 288: their 288-thread instances, 5 weight
-    groups, two dy streams a direction), and (``E_parts`` (80, 80), H = 80,
-    G = 1, ny = 1, run at 96) the stacked layer of the bf16 two-layer model
-    at embedding 80; 400 rows, T = 1500, the input gates from
-    ``bilstm_gates_mma``. The sweep the dispatch names must be
-    ``lite_want``: at 288 the tensor-core ``bilstm_bwd_lite_mma``, which
-    is then held and timed too ("lite_mma"), in turns with the CUDA-core
-    sweep by name (new, old, old, new); at 96 the CUDA-core one. Each held
-    against its plain twin with the main path's lengths (the tolerance
-    ``TOL``), then timed at full lengths beside the twin (timed once, in
-    the check), its bound at the bf16 rate at the padded H (the kernel's
-    own work) and at the true H, and cuDNN's one-layer bf16 training
-    forward, inference forward and backward for the input at the true
-    widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite" (the
-    CUDA-core sweep, by name) and at 288 "lite_mma"."""
+    their main paths' shapes or, where a tensor-core kernel took the width,
+    by name on that path's operands: by default layer 0 of the bf16
+    two-layer model at embedding 272 (E = 272, run at H = 288: their
+    288-thread instances, 5 weight groups, two dy streams a direction), and
+    (``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96) the stacked
+    layer of the bf16 two-layer model at embedding 80; 400 rows, T = 1500,
+    the input gates from ``bilstm_gates_mma``. The forward and the sweep
+    the dispatch names must be ``fwd_want`` and ``lite_want``: at 288 the
+    tensor-core ``bilstm_fwd_wide_mma`` and ``bilstm_bwd_lite_mma`` (their
+    instances for uneven unit groups), which are then held and timed too
+    ("fwd_mma", "fwd_eval_mma", "lite_mma"), each in turns with the
+    CUDA-core kernel by name (new, old, old, new); at 96 the CUDA-core
+    ones. Each held against its plain twin with the main path's lengths
+    (the tolerance ``TOL``; the tensor-core forward's two variants must give
+    the same hs bits), then timed at full lengths beside the twin (timed
+    once, in the check), its bound at the bf16 rate at the padded H (the
+    kernel's own work) and at the true H, and cuDNN's one-layer bf16
+    training forward, inference forward and backward for the input at the
+    true widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"
+    (the CUDA-core ones, by name) and at 288 the tensor-core ones, with
+    their row tile, tiles and the clusters the card holds at once."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
@@ -1626,55 +1644,79 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     E = sum(E_parts)
     Hp = L.padded_width(E_parts, H, cd)
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
-    if picked != (Hp_want, "bilstm_fwd_wide", lite_want):
+    if picked != (Hp_want, fwd_want, lite_want):
         raise AssertionError(f"the layer at E={E_parts}, H={H} in bf16 runs {picked}")
-    mma = lite_want == "bilstm_bwd_lite_mma"
+    # the tensor-core kernel of each CUDA-core one, where the dispatch names it
+    mma = {k: f"{k}_mma" for k, want in (("fwd", fwd_want), ("fwd_eval", fwd_want),
+                                          ("lite", lite_want)) if want.endswith("_mma")}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
              "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k: {"kernel": name, **shape} for k, name in (
         ("fwd", "bilstm_fwd_wide (train)"), ("fwd_eval", "bilstm_fwd_wide (eval)"),
-        ("lite", "bilstm_bwd_lite"), ("lite_mma", "bilstm_bwd_lite_mma"))
-        if mma or k != "lite_mma"}
+        ("lite", "bilstm_bwd_lite"), ("fwd_mma", "bilstm_fwd_wide_mma (train)"),
+        ("fwd_eval_mma", "bilstm_fwd_wide_mma (eval)"), ("lite_mma", "bilstm_bwd_lite_mma"))
+        if not k.endswith("_mma") or k in mma.values()}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
         xg = L.bilstm_gates(parts, w_ih, bias, cd)
-        calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                 "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
+        calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                        kernel="bilstm_fwd_wide"),
+                 "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,
+                                                       kernel="bilstm_fwd_wide"),
+                 "fwd_mma": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                 "fwd_eval_mma": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["lite"] = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
-        if mma:
-            calls["lite_mma"] = lambda: L.bilstm_bwd_lite(*args)
+        calls["lite_mma"] = lambda: L.bilstm_bwd_lite(*args)
+        calls = {k: v for k, v in calls.items() if k in out}
         if full:
             for k, call in calls.items():
-                if not mma or k not in ("lite", "lite_mma"):
+                if k not in mma and k not in mma.values():
                     out[k]["ms"] = time_ms(call, 3)
-            if mma:
-                # new, old, old, new: the tensor-core sweep and the CUDA-core one
-                out["lite_mma"]["ms"], out["lite_mma"]["ms_again"], out["lite"]["ms"] = in_turns(
-                    calls["lite_mma"], calls["lite"], 3)
-                out["lite_mma"]["cuda_core_ms"] = out["lite"]["ms"]
-                out["lite_mma"]["rows"], out["lite_mma"]["tiles"], _ = L.wide_plan(
-                    "lite_mma", B_TRAIN, G, Hp, L._max_clusters("bilstm_bwd_lite_mma", cd, Hp, dev))
-                out["lite_mma"]["max_active_clusters"] = {
-                    f"rows={k[3]}": v for k, v in L._cluster_counts.items()
-                    if k[0] == "bilstm_bwd_lite_mma" and k[2] == Hp}
+            for k, k_mma in mma.items():
+                # new, old, old, new: the tensor-core kernel and the CUDA-core one
+                out[k_mma]["ms"], out[k_mma]["ms_again"], out[k]["ms"] = in_turns(
+                    calls[k_mma], calls[k], 3)
+                out[k_mma]["cuda_core_ms"] = out[k]["ms"]
+                kind, lib = ("lite_mma", "bilstm_bwd_lite_mma") if k == "lite" else (
+                    "fwd_mma", "bilstm_fwd_wide_mma")
+                out[k_mma]["rows"], out[k_mma]["tiles"], _ = L.wide_plan(
+                    kind, B_TRAIN, G, Hp, L._max_clusters(lib, cd, Hp, dev))
+                out[k_mma]["max_active_clusters"] = {
+                    f"rows={c[3]}": v for c, v in L._cluster_counts.items()
+                    if c[0] == lib and c[2] == Hp}
+            if "fwd_mma" in out:
+                # the train variant at each row tile its instance for
+                # uneven groups is built for
+                keep = L.FWD_WIDE_MMA_UNEVEN_ROWS
+                try:
+                    for R in keep:
+                        L.FWD_WIDE_MMA_UNEVEN_ROWS = (R,)
+                        out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd_mma"], 3)
+                finally:
+                    L.FWD_WIDE_MMA_UNEVEN_ROWS = keep
         else:
             want, out["fwd"]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
             _, out["fwd_eval"]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd))
             ref, out["lite"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
-            res = {"fwd": {n: rel_err(a, b, TOL[cd])
-                           for n, a, b in zip(names, calls["fwd"](), want)},
-                   "fwd_eval": {n: rel_err(a, b, TOL[cd])
-                                for n, a, b in zip(names, calls["fwd_eval"](), want)},
-                   "lite": {"dgates": rel_err(calls["lite"](), ref, TOL[cd])}}
-            if mma:
-                res["lite_mma"] = {"dgates": rel_err(calls["lite_mma"](), ref, TOL[cd])}
-                out["lite_mma"]["plain_ms"] = out["lite"]["plain_ms"]
+            res = {}
+            for k in calls:
+                if k.startswith("lite"):
+                    res[k] = {"dgates": rel_err(calls[k](), ref, TOL[cd])}
+                else:
+                    res[k] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, calls[k](), want)}
+            for k, k_mma in mma.items():
+                out[k_mma]["plain_ms"] = out[k]["plain_ms"]
+            if "fwd_mma" in mma.values():
+                train, ev = calls["fwd_mma"](), calls["fwd_eval_mma"]()
+                if not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
+                    raise AssertionError("the tensor-core wide forward's two variants differ")
+                del train, ev
             torch.cuda.synchronize()
             for k, r in res.items():
                 out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
@@ -1689,10 +1731,9 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
             out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
                 [(*work[k.replace("_mma", "")], kernel_peak(cd))])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
-    for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
-                   ("lite", "cudnn_bwd_data_ms"), ("lite_mma", "cudnn_bwd_data_ms")):
-        if k in out:
-            out[k]["library_ms"] = lib[key]
+    for k in out:
+        out[k]["library_ms"] = lib[{"fwd": "cudnn_fwd_ms", "fwd_eval": "cudnn_inference_ms",
+                                    "lite": "cudnn_bwd_data_ms"}[k.replace("_mma", "")]]
     return out
 
 
@@ -1703,7 +1744,8 @@ def phase_widths(dev) -> dict:
     steps and an eval step) in f32 and bf16 and one at embedding 272 in
     bf16 (its steps timed), each with the kernels it launched;
     ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, with the
-    tensor-core lite sweep) and at embedding 80's stacked layer (H = 96);
+    tensor-core forward and lite sweep) and at embedding 80's stacked layer
+    (H = 96);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -1726,7 +1768,7 @@ def phase_widths(dev) -> dict:
                                 eval_step=True, dtype=dtype, embedding_size=width)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
-                                        "bilstm_bwd_lite")
+                                        "bilstm_fwd_wide", "bilstm_bwd_lite")
     steps = []
     for backend, width, dtype, expect in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -3136,11 +3178,10 @@ def main() -> int:
     # the CUDA-core forward (both variants), sweep and wgrad at their main
     # path's shapes: the f32 model at embedding 80 (its train steps and an
     # eval step)
-    # the CUDA-core forward (both variants), sweep and wgrad and the
-    # one-stage sweep at their main path's shapes: layer 0 of the two-layer
-    # model at embedding 80 (its train steps and an eval step); f32 is the
-    # main path of the forward, wgrad and the one-stage sweep, bf16 of
-    # bilstm_bwd.cu
+    # the CUDA-core forward (both variants) and wgrad and the one-stage sweep
+    # at their main path's shapes: layer 0 of the two-layer model at
+    # embedding 80 (its train steps and an eval step); f32 is the main path
+    # of the forward, wgrad and the one-stage sweep
     e80 = tk["embedding_80"]
     e80_launches = {d: train["steps_embedding_80"][d]["launches"] for d in e80}
     library = {"fwd_eval": "cuDNN one-layer nn.LSTM inference",
@@ -3150,7 +3191,6 @@ def main() -> int:
         ("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu", "float32"),
         ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "float32"),
         ("bwd", "bilstm_bwd_f32_onestage", "bilstm_bwd_f32_onestage.cu", "float32"),
-        ("bwd", "bilstm_bwd", "bilstm_bwd.cu", "bfloat16"),
         ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "float32"),
     ):
         e = e80[dtype][key]
@@ -3197,13 +3237,44 @@ def main() -> int:
                               "layer's operands, in turns with bilstm_wgrad_mma")
         else:
             # the same kernel in the other dtype, at the same shapes
-            o = e80[other][key] if key != "bwd" else None
-            if o is not None:
-                entry.update({f"{other}_{k}": o[k] for k in ("ms", "plain_ms", "library_ms")})
-                entry[f"{other}_bound_ms"] = o[f"{key}_bound_ms"]
-                entry[f"{other}_launches"] = e80_launches[other][name]
-                entry["work"] += f"; {other}_*: the same layer in {other}"
+            o = e80[other][key]
+            entry.update({f"{other}_{k}": o[k] for k in ("ms", "plain_ms", "library_ms")})
+            entry[f"{other}_bound_ms"] = o[f"{key}_bound_ms"]
+            entry[f"{other}_launches"] = e80_launches[other][name]
+            entry["work"] += f"; {other}_*: the same layer in {other}"
         kernels.append(entry)
+    # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
+    # take; its main path is layer 0 (E = H = 72) of the bf16 two-layer model
+    # at embedding 72 (phase widths' gradient and eval step). Timed by name
+    # on layer 0 at embedding 80 (its main path until the tensor-core sweep
+    # took E = H = 80), in turns with bilstm_bwd_mma, and in f32 there
+    e = e80["bfloat16"]["bwd"]
+    g72 = next(c for c in widths["grad_checks"]
+               if c["backend"] == "layer" and c.get("embedding_size") == 72)
+    kernels.append({
+        "name": "bilstm_bwd",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
+        "launches": g72["launches"].get("bilstm_bwd", 0),
+        "max_abs_err": max(v for n, v in e["max_abs_err"].items() if n.startswith("cuda_core_")),
+        "ms": e["cuda_core_ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bwd_bound_ms"],
+        "bound_by": e["bwd_bound_by"],
+        "library_ms": e["library_ms"],
+        "cuda_core_bound_ms": e["cuda_core_bound_ms"],
+        "float32_ms": e80["float32"]["bwd"]["cuda_core_ms"],
+        "float32_max_abs_err": max(v for n, v in e80["float32"]["bwd"]["max_abs_err"].items()
+                                   if n.startswith("cuda_core_")),
+        "work": "launches: the bf16 gradient and eval step of the two-layer model at embedding "
+                "72 (layer 0, E=H=72); ms: by name on layer 0 of the bf16 two-layer model at "
+                "embedding 80 (E=H=80, 5 groups, two dy streams a direction), 400 rows, "
+                "T=1500, in turns with bilstm_bwd_mma (new, old, old, new), bound at the bf16 "
+                "rate (cuda_core_bound_ms at 67 TFLOP/s, its f32 FMAs); float32_*: the same by "
+                "name on the f32 layer's operands, in turns with bilstm_bwd_f32_onestage; "
+                "library: cuDNN one-layer nn.LSTM backward (input) in bf16, TF32 off",
+    })
     kernels.append({
         "name": "bilstm_bwd_mma",
         "route": "cuda",
@@ -3219,10 +3290,24 @@ def main() -> int:
         "bound_by": t16["bwd_bound_by"],
         "library_ms": t16["cudnn_bwd_data_ms"],
         "cuda_core_ms": t16["bwd_cuda_core_ms"],
+        # its <80, 80> instance: layer 0 of the bf16 model at embedding 80
+        **{f"h80_{k}": e80["bfloat16"]["bwd"][k] for k in (
+            "ms", "ms_again", "cuda_core_ms", "plain_ms", "library_ms", "scaled_err")},
+        "h80_bound_ms": e80["bfloat16"]["bwd"]["bwd_bound_ms"],
+        "h80_bound_by": e80["bfloat16"]["bwd"]["bwd_bound_by"],
+        "h80_launches": e80_launches["bfloat16"]["bilstm_bwd_mma"],
+        "h80_max_abs_err": max(v for n, v in e80["bfloat16"]["bwd"]["max_abs_err"].items()
+                               if not n.startswith("cuda_core_")),
         "work": "both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
                 "cuda_core_ms: bilstm_bwd.cu on the same operands in the same run; library: "
-                "cuDNN nn.LSTM backward (input) in bf16",
+                "cuDNN nn.LSTM backward (input) in bf16; h80_*: its <80, 80> instance on layer "
+                "0 of the bf16 two-layer model at embedding 80 (E=H=80, 5 groups, two dy "
+                "streams a direction), 400 rows, T=1500, its launches in that model's steps, "
+                "cuda_core_ms: bilstm_bwd.cu by name in turns (new, old, old, new), library: "
+                "cuDNN one-layer bf16 backward (input)",
     })
+    if kernels[-1]["h80_launches"] <= 0:
+        raise AssertionError("the bf16 model at embedding 80 never ran the tensor-core sweep")
     # the tensor-core forward (both variants) and wgrad: the bf16 step and its eval step
     w16 = wk["timings"]["bfloat16"]
     mma_errs = {"fwd": train_errs["fwd"], "wgrad": train_errs["wgrad"],
@@ -3322,17 +3407,14 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
             entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
             entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
-            entry["work"] += ("; h288_*: its 288-thread instance on layer 0 of the bf16 "
-                              "two-layer model at embedding 272 (E=272, run at H=288), bf16, "
-                              "400 rows, T=1500, bound at H=288 (true_bound_ms at 272), "
-                              "launches in that model's steps, library: cuDNN one-layer bf16 "
-                              "at E=H=272" if key != "lite" else
-                              "; h288_*: its 288-thread instance by name, off the main path "
-                              "since bilstm_bwd_lite_mma took bf16 at H=288 (h288_launches 0 "
-                              "in the bf16 model at embedding 272), on the operands of layer 0 "
-                              "of that model (E=272, run at H=288), bf16, 400 rows, T=1500, in "
-                              "turns with bilstm_bwd_lite_mma, bound at H=288 (true_bound_ms "
-                              "at 272), library: cuDNN one-layer bf16 at E=H=272")
+            entry["work"] += ("; h288_*: its 288-thread instance by name, off the main path "
+                              "since the tensor-core kernel took bf16 at H=288 ("
+                              + ("bilstm_bwd_lite_mma" if key == "lite" else "bilstm_fwd_wide_mma")
+                              + "; h288_launches 0 in the bf16 model at embedding 272), on the "
+                              "operands of layer 0 of that model (E=272, run at H=288), bf16, "
+                              "400 rows, T=1500, in turns with the tensor-core kernel, bound at "
+                              "H=288 (true_bound_ms at 272), library: cuDNN one-layer bf16 at "
+                              "E=H=272")
             # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
             k96 = widths["kernels_96"][key]
             entry.update({f"h96_{k}": k96[k] for k in (
@@ -3389,6 +3471,22 @@ def main() -> int:
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
         else:
             entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith(f"{key}_rows")}
+        if key in ("fwd", "fwd_eval"):
+            # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
+            k288 = widths["kernels_288"][f"{key}_mma"]
+            entry.update({f"h288_{k}": k288[k] for k in (
+                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
+                "true_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters")})
+            entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
+            entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
+            if entry["h288_launches"] <= 0:
+                raise AssertionError("the bf16 model at embedding 272 never ran its forward")
+            entry["work"] += ("; h288_*: its instance for 4 or 5 unit groups a block on layer 0 "
+                              "of the bf16 two-layer model at embedding 272 (E=272, run at "
+                              "H=288, 5 groups), 400 rows, T=1500, bound at H=288 "
+                              "(true_bound_ms at 272), cuda_core_ms: bilstm_fwd_wide.cu's "
+                              "288-thread instance by name (new, old, old, new), launches in "
+                              "that model's steps, library: cuDNN one-layer bf16 at E=H=272")
         if key == "lite":
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"]["lite_mma"]

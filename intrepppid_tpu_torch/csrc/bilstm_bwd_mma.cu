@@ -1,4 +1,4 @@
-// Bidirectional LSTM layer backward sweep (BPTT), bf16 compute dtype, H <= 64:
+// Bidirectional LSTM layer backward sweep (BPTT), bf16 compute dtype, H <= 80:
 // the tensor-core variant, hand-written for Hopper (sm_90a).
 //
 // Replaces, like bilstm_bwd.cu (which keeps f32), the recurrent part of the
@@ -51,6 +51,13 @@
 //     reverse direction meets those positions last, where dh is dead);
 //   * row tiles of 8: 2 x 50 blocks at 400 rows, one wave on 132 SMs; each
 //     weight group is cut into its own tiles, nothing is padded.
+// At E = H = 80 (layer 0 of the two-layer model at embedding 80) the same
+// design takes 10 warps, one per 8 units, whose m16 rows 8-15 carry all 80
+// dx columns (no extra warps); the resident weights are 4H x (E + H + 8) x 2
+// = 107,520 B and the block 138,752 B of shared memory: one block an SM, the
+// 100 blocks of the train step in one wave. ops/lstm_cuda.py:bwd_mma_plan
+// takes H = 80 at E = 80 only (the <80, 80> instance), the shapes
+// bilstm_bwd.cu took there, so no layer changes its route or padded shape.
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -63,7 +70,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int kStages = 3;
 constexpr int kMaxChunks = 3;   // 16-byte tile chunks each thread copies per step
 constexpr int kMaxThreads = 384;
-constexpr int kMaxH = 64;
+constexpr int kMaxH = 80;
 constexpr int kPad = 8;         // bf16 elements of padding on every shared row
 
 // One round (32 of K) of a product's fragments: the B operand of two
@@ -516,7 +523,9 @@ int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   a.T = T_steps; a.B = B; a.H = H; a.G = G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = E0 + E1;
-  // the model's layers (E = H below, E = 2H stacked) at its two widths
+  // the model's layers (E = H below, E = 2H stacked) at its two widths, and
+  // layer 0 of the two-layer model at embedding 80
+  if (H == 80 && E == 80) return launch<80, 80>(a, tiles, threads, smem, st);
   if (H == 64 && E == 64) return launch<64, 64>(a, tiles, threads, smem, st);
   if (H == 64 && E == 128) return launch<64, 128>(a, tiles, threads, smem, st);
   if (H == 32 && E == 32) return launch<32, 32>(a, tiles, threads, smem, st);

@@ -63,13 +63,44 @@
 //     runs while the other waits on its barrier, and at H = 256 the 32-row
 //     tile puts 30 clusters on the card at once, the scaled shapes in one wave.
 // The eval and train variants run the same code for h: they give the same
-// hs bits. It takes H = 128 and 256 (whole 8-unit groups in each block, and
-// 8 warps split evenly over them).
+// hs bits. This kernel takes H = 128 and 256 (whole 8-unit groups in each
+// block, and 8 warps split evenly over them).
+//
+// H = 288 (every bf16 layer of 257-288 units, padded there; both layers of
+// the two-layer model at embedding 272) takes a second kernel of the same
+// design, bilstm_fwd_wide_mma_uneven_kernel:
+//   * the 36 unit groups split 4 / 5 over the cluster's blocks
+//     (lstm_recurrence_wide_mma.cuh:unit_groups), so the 8 warps cannot
+//     take the groups evenly. The work of a block is its UG x NT items
+//     (unit group, n8 row tile), each a unit's four gates for 8 rows in one
+//     lane (no exchange). They are dealt out over all 8 warps as contiguous
+//     runs in group-major order: warp w takes items [w N / 8, (w + 1) N / 8)
+//     of the N = UG NT, at most ceil(5 NT / 8) items of at most two groups
+//     (at 32-row tiles: 2 / 3 / 2 / 3 / ... at 5 groups, 2 each at 4). So every
+//     warp works in the gate product and the cell, and a warp loads the
+//     weight fragments of at most two groups a k32 step, each feeding all
+//     its items of that group. (bilstm_bwd_lite_mma.cu's uneven instance
+//     gives warp w < UG one group over every n8 tile instead, which idles
+//     3-4 warps in its gate product.)
+//   * the weights stay resident: the bf16 slice of the largest block (5
+//     groups, 160 gate rows of 288 + 8) is 94,720 B; with the two h tiles
+//     and the staging of 40 units, 138,752 B at 32-row tiles: one block an
+//     SM (no tile fits two);
+//   * row tiles of 16, 32 and 40 rows, at most 4 items a warp, so the
+//     weight fragments of the next k32 step load while the current one's
+//     products run (pipelined_rounds, two fragment buffers) within the 255
+//     registers of a thread. 64- and 80-row tiles (5-7 items a warp) fit
+//     shared memory but not that: with the fragments loaded right before
+//     their products the 80-row tile spilled and took 21.39 ms a layer in
+//     one wave against 15.93 for 32 rows in two (chip_smoke.py phase
+//     widths, PERF.md), so they are not built. At the train step's 400 rows
+//     in 5 groups 32-row tiles make 30 clusters, two waves of 15.
 
 #include <cooperative_groups.h>
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
+#include "lstm_recurrence_wide_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -340,10 +371,279 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(H, BR))
     }
 }
 
+// ---------------------------------------------- H = 288: uneven group split
+// Dynamic shared memory of the uneven instance <H, BR> (bytes), in layout
+// order: the W_hh slice, the two h tiles and the staging, each per-block
+// width sized for the block that owns the most groups, MG = ceil(H / 64).
+__host__ __device__ constexpr int uneven_groups(int H) { return (H + 63) / 64; }
+__host__ __device__ constexpr int smem_w_u(int H) { return 32 * uneven_groups(H) * (H + kPad) * 2; }
+__host__ __device__ constexpr int smem_stage_u(int H, int BR) {
+  return 2 * BR * (8 * uneven_groups(H) + kPad) * 2;
+}
+__host__ __device__ constexpr int smem_bytes_u(int H, int BR) {
+  return smem_w_u(H) + smem_h(H, BR) + smem_stage_u(H, BR);
+}
+
+// One k32 step of the gate product's weight fragments: [segment][k16 half][m16 half].
+struct UnevenFrag {
+  uint32_t a[2][2][2][4];
+};
+
+// grid (tiles * kWideCluster, 2) in clusters of kWideCluster, kThreads threads.
+template <int H, int BR>
+__global__ void __launch_bounds__(kThreads, 1) bilstm_fwd_wide_mma_uneven_kernel(const Args a) {
+  constexpr int MG = uneven_groups(H);  // most unit groups a block owns
+  constexpr int UM = 8 * MG;            // most units a block owns
+  constexpr int H4 = 4 * H;
+  constexpr int NT = BR / 8;                              // n8 tiles of the row tile
+  constexpr int GI = (MG * NT + kWarps - 1) / kWarps;     // most items a warp takes
+  constexpr int KS = H + kPad;                            // weight / h row stride (bf16)
+  constexpr int SS = UM + kPad;                           // staging row stride (bf16)
+  constexpr int HC = H / 8;                               // 16-byte chunks of a weight row
+  constexpr int NCH = (BR * MG + kThreads - 1) / kThreads;
+  constexpr int W_AT = 0;
+  constexpr int H_AT = W_AT + smem_w_u(H);
+  constexpr int ST_AT = H_AT + smem_h(H, BR);
+  static_assert(H % 32 == 0 && BR % 8 == 0 && GI <= NT + 1 && GI <= 4, "shape");
+  static_assert(smem_bytes_u(H, BR) == ST_AT + smem_stage_u(H, BR), "layout");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / kWideCluster;
+  const int d = blockIdx.y;
+  const int T = a.T, B = a.B;
+  const int Bg = B / a.G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int group = tile_row(tile, 0, BR, Bg) / Bg;
+  bf16* hs = a.hs[d];
+  bf16* cs = a.cs[d];
+  const bool train = cs != nullptr;
+  // this block's unit groups [glo, ghi): UG groups, U units from unit0
+  int glo, ghi;
+  recwide::unit_groups(H, rank, glo, ghi);
+  const int UG = ghi - glo, U = 8 * UG, U4 = 4 * U, unit0 = 8 * glo;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t smem0 = smem_u32(smem);
+  bf16* h_s = reinterpret_cast<bf16*>(smem + H_AT);  // [2][BR][KS]
+  bf16* hst = reinterpret_cast<bf16*>(smem + ST_AT);  // [BR][SS]: the block's new h
+  bf16* cst = hst + BR * SS;                           // [BR][SS]: its new c
+
+  // stage this block's 4U gate rows of W_hh[d, group], permuted: row p =
+  // 32 * (ul / 8) + 8 * gate + ul % 8 holds gate `gate` of local unit ul
+  {
+    const bf16* w = a.w_hh + ((size_t)d * a.G + group) * H4 * H;
+    for (int idx = tid; idx < U4 * HC; idx += kThreads) {
+      const int p = idx / HC, c = idx - p * HC;
+      const int ul = 8 * (p >> 5) + (p & 7), q = (p & 31) >> 3;
+      cp_async16(smem0 + W_AT + (uint32_t)((p * KS + 8 * c) * 2),
+                 w + ((size_t)q * H + unit0 + ul) * H + 8 * c, true);
+    }
+    cp_async_commit();
+  }
+  // the first step's h: zero
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = tid; idx < BR * KS / 8; idx += kThreads) reinterpret_cast<uint4*>(h_s)[idx] = zero4;
+
+  // the tile's longest row bounds the positions that do any work; every
+  // block of the cluster finds the same maxlen, so they take the same barriers
+  int maxlen = 0;
+  for (int rl = 0; rl < BR; ++rl) {
+    const int r = tile_row(tile, rl, BR, Bg);
+    if (r >= 0) maxlen = max(maxlen, min(a.lengths[r], T));
+  }
+
+  // this thread's 16-byte chunks of the staged tiles (tile row idx / UG,
+  // units 8 (idx % UG) ..): -1 past the group's end, -2 no chunk
+  int crow[NCH];
+  uint4 hv[NCH], cv[NCH];
+#pragma unroll
+  for (int m = 0; m < NCH; ++m) {
+    const int idx = tid + m * kThreads;
+    crow[m] = idx < BR * UG ? tile_row(tile, idx / UG, BR, Bg) : -2;
+    hv[m] = zero4;
+    cv[m] = zero4;
+  }
+  auto store_chunks = [&](int pos) {
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      if (crow[m] < 0) continue;
+      const int c = (tid + m * kThreads) % UG;
+      const size_t at = ((size_t)pos * B + crow[m]) * H + unit0 + 8 * c;
+      *reinterpret_cast<uint4*>(hs + at) = hv[m];
+      if (train) *reinterpret_cast<uint4*>(cs + at) = cv[m];
+    }
+  };
+  // the reverse direction meets positions [maxlen, T) first, with its state still zero
+  if (d == 1)
+    for (int pos = maxlen; pos < T; ++pos) store_chunks(pos);
+
+  // the items: the block's UG NT (unit group, n8 tile) pairs in group-major
+  // order; warp w takes the run [i0, i0 + ni), of group ug0 (n0 items) and
+  // then ug0 + 1. Lane (g, t) of item j: local unit ul[j] = 8 ug + g, tile
+  // rows 8 nt[j] + 2t + i
+  const int N = UG * NT;
+  const int i0 = warp * N / kWarps, ni = (warp + 1) * N / kWarps - i0;
+  const int ug0 = i0 / NT, n0 = min(ni, NT * (ug0 + 1) - i0);
+  const bool two = ni > n0;  // warp-uniform: a second group
+  int nt[GI], ul[GI], row[GI][2], len[GI][2];
+  float h[GI][2], c[GI][2], xv[GI][2][4];
+#pragma unroll
+  for (int j = 0; j < GI; ++j) {
+    const int ug = j < n0 ? ug0 : ug0 + 1;
+    nt[j] = i0 + j - NT * ug;
+    ul[j] = 8 * ug + g;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = j < ni ? tile_row(tile, 8 * nt[j] + 2 * t + i, BR, Bg) : -1;
+      row[j][i] = r;
+      len[j][i] = r >= 0 ? a.lengths[r] : 0;
+      h[j][i] = 0.0f;
+      c[j][i] = 0.0f;
+    }
+  }
+  const float* xgd = a.xg + (size_t)d * T * B * H4;
+  // the four gates of each item's unit and rows at `pos`, into registers
+  auto load_xg = [&](int pos) {
+#pragma unroll
+    for (int j = 0; j < GI; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row[j][i];
+        const float* src = xgd + ((size_t)pos * B + (r >= 0 ? r : 0)) * H4 + unit0 + ul[j];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xv[j][i][q] = r >= 0 ? __ldg(src + q * H) : 0.0f;
+      }
+  };
+  const int pos0 = d ? maxlen - 1 : 0, dpos = d ? -1 : 1;
+  if (maxlen > 0) load_xg(pos0);
+
+  // gate product: A rows 32 ug + 16 mt + lr + 8 (lm & 1), columns k0 + 8 (lm >> 1)
+  // of group ug0 (segment 0) and ug0 + 1 (segment 1, 32 rows on); B: h tile
+  // rows 8 nt + lr, columns k0 + 8 lm (two k16 steps a load)
+  const uint32_t a_gate =
+      smem0 + W_AT + (uint32_t)(((32 * ug0 + lr + 8 * (lm & 1)) * KS + 8 * (lm >> 1)) * 2);
+  const uint32_t b_gate = (uint32_t)((lr * KS + 8 * lm) * 2);
+  float acc[GI][2][4];
+  auto gate_mma = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < GI; ++j)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.0f;
+    const uint32_t b_base = smem0 + H_AT + (uint32_t)(buf * BR * KS * 2) + b_gate;
+    auto load = [&](UnevenFrag& f, int r) {
+#pragma unroll
+      for (int sg = 0; sg < 2; ++sg) {
+        if (sg == 1 && !two) continue;
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldmatrix_x4(f.a[sg][kh][mt],
+                        a_gate + (uint32_t)(((32 * sg + 16 * mt) * KS + 32 * r + 16 * kh) * 2));
+      }
+    };
+    auto use = [&](const UnevenFrag& f, int r) {
+#pragma unroll
+      for (int j = 0; j < GI; ++j) {
+        if (j >= ni) continue;
+        uint32_t b[4];
+        ldmatrix_x4(b, b_base + (uint32_t)((8 * nt[j] * KS + 32 * r) * 2));
+        const int sg = j < n0 ? 0 : 1;
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (sg == 0)
+              mma_bf16(acc[j][mt], f.a[0][kh][mt], b[2 * kh], b[2 * kh + 1]);
+            else
+              mma_bf16(acc[j][mt], f.a[1][kh][mt], b[2 * kh], b[2 * kh + 1]);
+          }
+      }
+    };
+    pipelined_rounds<UnevenFrag>(H / 32, load, use);
+  };
+
+  cp_async_wait<0>();
+  __syncthreads();  // W_hh's slice and the zero h tile are in place
+  cluster.sync();   // every block of the cluster runs (its shared memory takes pushes)
+
+  int pos = pos0;
+  for (int s = 0; s < maxlen; ++s, pos += dpos) {
+    const int buf = s & 1;
+    gate_mma(buf);
+
+    // the cell: lane (g, t) holds the four gates of unit ul[j], rows 2t, 2t + 1 of n8 tile nt[j]
+#pragma unroll
+    for (int j = 0; j < GI; ++j) {
+      if (j >= ni) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float ig = fast_sigmoid(xv[j][i][0] + acc[j][0][i]);
+        const float fg = fast_sigmoid(xv[j][i][1] + acc[j][0][2 + i]);
+        const float gg = fast_tanh(xv[j][i][2] + acc[j][1][i]);
+        const float og = fast_sigmoid(xv[j][i][3] + acc[j][1][2 + i]);
+        const float c_new = fg * c[j][i] + ig * gg;
+        const float h_new = og * fast_tanh(c_new);
+        if (pos < len[j][i]) {
+          c[j][i] = c_new;
+          h[j][i] = h_new;
+        }
+        const int rl = 8 * nt[j] + 2 * t + i;
+        hst[rl * SS + ul[j]] = __float2bfloat16_rn(h[j][i]);
+        if (train) cst[rl * SS + ul[j]] = __float2bfloat16_rn(c[j][i]);
+      }
+    }
+    if (s + 1 < maxlen) load_xg(pos + dpos);
+    __syncthreads();  // the block's new h (and c) tile is staged
+
+#pragma unroll
+    for (int m = 0; m < NCH; ++m) {
+      if (crow[m] == -2) continue;
+      const int idx = tid + m * kThreads, rl = idx / UG, cc = idx - rl * UG;
+      hv[m] = *reinterpret_cast<const uint4*>(hst + rl * SS + 8 * cc);
+      if (train) cv[m] = *reinterpret_cast<const uint4*>(cst + rl * SS + 8 * cc);
+      if (s + 1 < maxlen) {
+        // the next step's h tile of every block of the cluster
+        bf16* dst = h_s + ((buf ^ 1) * BR + rl) * KS + unit0 + 8 * cc;
+#pragma unroll
+        for (int k = 0; k < kWideCluster; ++k)
+          *reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, k)) = hv[m];
+      }
+    }
+    cluster_arrive_release();  // this block's pushes of step s are written
+    store_chunks(pos);
+    cluster_wait_acquire();  // every block's pushes landed; every block is past this step
+  }
+
+  // the forward direction's state is frozen past the tile's longest row
+  if (d == 0)
+    for (int p = maxlen; p < T; ++p) store_chunks(p);
+#pragma unroll
+  for (int j = 0; j < GI; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row[j][i];
+      if (r < 0) continue;
+      a.hn[((size_t)d * B + r) * H + unit0 + ul[j]] = h[j][i];
+      a.cn[((size_t)d * B + r) * H + unit0 + ul[j]] = c[j][i];
+    }
+}
+
 template <int H, int BR>
 int launch(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clusters) {
   if (smem != smem_bytes(H, BR)) return (int)cudaErrorInvalidValue;
   return launch_wide(bilstm_fwd_wide_mma_kernel<H, BR>, tiles, kThreads, smem, stream,
+                     max_clusters, a);
+}
+
+template <int H, int BR>
+int launch_uneven(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clusters) {
+  if (smem != smem_bytes_u(H, BR)) return (int)cudaErrorInvalidValue;
+  return launch_wide(bilstm_fwd_wide_mma_uneven_kernel<H, BR>, tiles, kThreads, smem, stream,
                      max_clusters, a);
 }
 
@@ -359,6 +659,16 @@ int launch_rows(int rows, const Args& a, int tiles, int smem, cudaStream_t st, i
   }
 }
 
+template <int H>
+int launch_rows_uneven(int rows, const Args& a, int tiles, int smem, cudaStream_t st, int* mc) {
+  switch (rows) {
+    case 16: return launch_uneven<H, 16>(a, tiles, smem, st, mc);
+    case 32: return launch_uneven<H, 32>(a, tiles, smem, st, mc);
+    case 40: return launch_uneven<H, 40>(a, tiles, smem, st, mc);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -366,17 +676,20 @@ extern "C" {
 int bilstm_fwd_wide_mma_cluster() { return kWideCluster; }
 int bilstm_fwd_wide_mma_threads() { return kThreads; }
 int bilstm_fwd_wide_mma_pad() { return kPad; }
+// the row tiles of the instance for uneven groups, as a mask of rows / 8
+int bilstm_fwd_wide_mma_uneven_rows() { return (1 << 2) | (1 << 4) | (1 << 5); }
 
 const char* bilstm_fwd_wide_mma_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // The compute dtype is bfloat16. `rows` is the row tile (16, 32, 40, 64 or
-// 80) and `smem` its dynamic shared memory, as
+// 80; 16, 32 or 40 at H = 288) and `smem` its dynamic shared memory, as
 // ops/lstm_cuda.py:wide_smem("fwd_mma", ...) computes it (refused
 // otherwise). xg (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G, 4H, H);
 // hs_f, hs_b (and cs_f, cs_b, both null for the eval variant) (T, B, H)
-// bf16; hn, cn (2, B, H) f32. H = 128 or 256; each of the G weight groups
+// bf16; hn, cn (2, B, H) f32. H = 128 or 256, and 288 (the instance for
+// uneven unit groups); each of the G weight groups
 // (B / G rows) is cut into its own tiles of `rows` rows: `tiles` =
 // G * ceil(B / G / rows). With max_clusters non-null, nothing is launched:
 // it receives how many clusters the card holds at once. Returns a
@@ -399,6 +712,7 @@ int bilstm_fwd_wide_mma(int rows, const void* xg, const void* lengths, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256) return launch_rows<256>(rows, a, tiles, smem, st, max_clusters);
   if (H == 128) return launch_rows<128>(rows, a, tiles, smem, st, max_clusters);
+  if (H == 288) return launch_rows_uneven<288>(rows, a, tiles, smem, st, max_clusters);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -29,14 +29,15 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Four kernels do it, picked by shape and dtype (``sweep_kernel``):
-    ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64:
-    the products on the tensor cores), ``bilstm_bwd_f32`` launches
-    ``csrc/bilstm_bwd_f32.cu`` (f32, H <= 64: three tf32 passes a product on
+    ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64
+    and E = H = 80: the products on the tensor cores), ``bilstm_bwd_f32``
+    launches ``csrc/bilstm_bwd_f32.cu`` (f32, H <= 64: three tf32 passes a product on
     the tensor cores), ``bilstm_bwd_f32_onestage`` launches
     ``csrc/bilstm_bwd_f32_onestage.cu`` (the same kernel with one [x ; h]
     stage, f32 at E = H = 80), and ``bilstm_bwd`` itself launches
-    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores: bf16 at H = 80). Plain
-    twin of all four: ``ops/lstm.py:bidir_layer_sweep``.
+    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores: the bf16 shapes past
+    H = 64 but E = H = 80). Plain twin of all four:
+    ``ops/lstm.py:bidir_layer_sweep``.
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
 
@@ -50,8 +51,9 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     recurrence over those gates with ``W_hh`` split over a cluster of 8
     blocks, by one of two kernels (``wide_fwd_kernel``):
     ``bilstm_fwd_wide_mma`` and ``bilstm_fwd_wide_train_mma`` launch
-    ``csrc/bilstm_fwd_wide_mma.cu`` (bf16, H = 128 and 256: the product on
-    the tensor cores), the two wrappers themselves launch
+    ``csrc/bilstm_fwd_wide_mma.cu`` (bf16, H = 128, 256 and 288: the product
+    on the tensor cores; at 288 an instance whose cluster splits the unit
+    groups 4 / 5 a block), the two wrappers themselves launch
     ``csrc/bilstm_fwd_wide.cu`` for the rest (f32, and the bf16 widths the
     tensor-core forward does not take; CUDA cores). With ``bilstm_gates``,
     the counterpart of ``_fwd_pallas`` at these widths. Plain twin of both:
@@ -173,8 +175,9 @@ SMEM_LIMIT = 232448
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
-# kMaxThreads, kMaxH, kPad), bilstm_bwd_f32.cu and bilstm_bwd_f32_onestage.cu
-# (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign, kStridePad),
+# kMaxThreads, kMaxH = BWD_MMA_MAX_H, kPad), bilstm_bwd_f32.cu and
+# bilstm_bwd_f32_onestage.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH,
+# kStrideAlign, kStridePad),
 # lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
@@ -182,7 +185,8 @@ SMEM_LIMIT = 232448
 # kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
 # bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
-# bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad), bilstm_wgrad_f32.cu
+# bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad, the uneven instance's
+# row tiles), bilstm_wgrad_f32.cu
 # (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
 # and lstm_recurrence_bwd_wide_f32.cu (kWideCluster, kThreads, their padding,
 # kMinH, kRecMaxH, the row tiles of each instance)
@@ -198,6 +202,10 @@ WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
 BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS = 3, 384
+# the bf16 tensor-core sweep's widest H (csrc/bilstm_bwd_mma.cu kMaxH): past
+# MMA_MAX_H it takes E = H = 80 only, its <80, 80> instance (the shape
+# bilstm_bwd.cu took there: no layer changes its route or padded shape)
+BWD_MMA_MAX_H = 80
 REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
 # the f32 tensor-core sweep: [x ; h] chunks a thread copies per step, and
 # its weight / tile row stride K rounded up to 32 floats plus 8
@@ -241,8 +249,11 @@ LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256, 288), (16, 32, 40, 80)
 LITE_MMA_UNEVEN_ROWS = (16, 32)
 LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
 # the tensor-core wide forward: the widths and row tiles it is instantiated
-# for, and threads a block
-FWD_WIDE_MMA_WIDTHS, FWD_WIDE_MMA_ROWS = (128, 256), (16, 32, 40, 64, 80)
+# for (at 288, whose unit groups split unevenly over the cluster, a second
+# kernel with tiles of at most 4 (group, n8 tile) items a warp), and
+# threads a block
+FWD_WIDE_MMA_WIDTHS, FWD_WIDE_MMA_ROWS = (128, 256, 288), (16, 32, 40, 64, 80)
+FWD_WIDE_MMA_UNEVEN_ROWS = (16, 32, 40)
 FWD_WIDE_MMA_THREADS = 256
 # the f32 tensor-core wgrad (three tf32 passes): the tiles of the bf16 one,
 # cp.async stages, and its dynamic shared memory (f32 rows of 128 + 8)
@@ -316,7 +327,7 @@ _CONSTANTS = {
                         "bilstm_bwd_mma_max_chunks", "bilstm_bwd_mma_max_threads",
                         "bilstm_bwd_mma_max_h", "bilstm_bwd_mma_pad"),
                        (MMA_TILE, MMA_STAGES, BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS,
-                        MMA_MAX_H, MMA_PAD)),
+                        BWD_MMA_MAX_H, MMA_PAD)),
     "bilstm_bwd_f32": (("bilstm_bwd_f32_tile", "bilstm_bwd_f32_max_chunks",
                         "bilstm_bwd_f32_max_threads", "bilstm_bwd_f32_max_h",
                         "bilstm_bwd_f32_stride_align", "bilstm_bwd_f32_stride_pad"),
@@ -394,8 +405,9 @@ _CONSTANTS = {
                                 (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
                                  REC_MMA_F32_PAD)),
     "bilstm_fwd_wide_mma": (("bilstm_fwd_wide_mma_cluster", "bilstm_fwd_wide_mma_threads",
-                             "bilstm_fwd_wide_mma_pad"),
-                            (WIDE_CLUSTER, FWD_WIDE_MMA_THREADS, MMA_PAD)),
+                             "bilstm_fwd_wide_mma_pad", "bilstm_fwd_wide_mma_uneven_rows"),
+                            (WIDE_CLUSTER, FWD_WIDE_MMA_THREADS, MMA_PAD,
+                             sum(1 << (r // 8) for r in FWD_WIDE_MMA_UNEVEN_ROWS))),
     "bilstm_wgrad_f32": (("bilstm_wgrad_f32_tile_m", "bilstm_wgrad_f32_tile_n",
                           "bilstm_wgrad_f32_tile_k", "bilstm_wgrad_f32_stages",
                           "bilstm_wgrad_f32_smem"),
@@ -532,15 +544,17 @@ def bwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
     """``(threads, smem_bytes)`` of the tensor-core sweep
     (``csrc/bilstm_bwd_mma.cu``) for a layer with ``ny`` dy streams per
     direction, or ValueError for a dtype or shape it does not take. It takes
-    bfloat16 with H in {16, 32, 48, 64}, input parts that are multiples of 8
-    wide, and ``(E + H) % 32 == 0`` (its products step K by 32)."""
+    bfloat16 with H in {16, 32, 48, 64} or E = H = ``BWD_MMA_MAX_H`` (80),
+    input parts that are multiples of 8 wide, and ``(E + H) % 32 == 0`` (its
+    products step K by 32)."""
     E = sum(E_parts)
-    if (dtype != torch.bfloat16 or H % 16 or not 16 <= H <= MMA_MAX_H
+    if (dtype != torch.bfloat16 or H % 16
+            or not (16 <= H <= MMA_MAX_H or H == E == BWD_MMA_MAX_H)
             or any(e <= 0 or e % 8 for e in E_parts) or (E + H) % 32):
         raise ValueError(
-            f"bilstm_bwd_mma kernel takes bfloat16 with H in {{16, 32, 48, {MMA_MAX_H}}}, input "
-            f"parts that are positive multiples of 8 and (E + H) % 32 == 0, got {dtype}, "
-            f"H={H}, E_parts={list(E_parts)}")
+            f"bilstm_bwd_mma kernel takes bfloat16 with H in {{16, 32, 48, {MMA_MAX_H}}} or "
+            f"E = H = {BWD_MMA_MAX_H}, input parts that are positive multiples of 8 and "
+            f"(E + H) % 32 == 0, got {dtype}, H={H}, E_parts={list(E_parts)}")
     # one warp per 8 hidden units; the dx columns past the first H go to
     # extra warps, 16 columns each
     threads = 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2))
@@ -628,7 +642,7 @@ def bwd_f32_onestage_plan(E_parts: Sequence[int], H: int,
 def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's sweep takes for a layer, by shape and
     dtype alone, the first whose plan fits: ``"bilstm_bwd_mma"``
-    (``bwd_mma_plan``: bf16, H <= 64), ``"bilstm_bwd_f32"``
+    (``bwd_mma_plan``: bf16, H <= 64 and E = H = 80), ``"bilstm_bwd_f32"``
     (``bwd_f32_plan``: f32, H <= 64), ``"bilstm_bwd_f32_onestage"``
     (``bwd_f32_onestage_plan``: f32 past bilstm_bwd_f32.cu's shared memory,
     E = H = 80), ``"bilstm_bwd"`` (``bwd_launch_plan``: the CUDA cores, the
@@ -992,8 +1006,10 @@ def lite_kernel(H: int, dtype: torch.dtype) -> str:
 def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or width the tensor-core wide forward
     (``csrc/bilstm_fwd_wide_mma.cu``) does not take: it takes bfloat16 at
-    H in ``FWD_WIDE_MMA_WIDTHS`` (whole 8-unit groups in each of the
-    cluster's 8 blocks, and its 8 warps evenly over them)."""
+    H in ``FWD_WIDE_MMA_WIDTHS``: 128 and 256 (whole 8-unit groups in each
+    of the cluster's 8 blocks, and its 8 warps evenly over them) and 288
+    (an instance for 4 or 5 groups a block, its (group, n8 tile) items
+    dealt over the 8 warps)."""
     if dtype != torch.bfloat16 or H not in FWD_WIDE_MMA_WIDTHS:
         raise ValueError(
             f"bilstm_fwd_wide_mma kernel takes bfloat16 with H in {list(FWD_WIDE_MMA_WIDTHS)}, "
@@ -1003,7 +1019,7 @@ def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
 def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
-    (bf16, H = 128 or 256), else ``"bilstm_fwd_wide"`` where ``wide_check``
+    (bf16, H = 128, 256 or 288), else ``"bilstm_fwd_wide"`` where ``wide_check``
     passes (f32, and the bf16 widths the tensor-core forward does not take);
     ValueError naming both refusals otherwise."""
     try:
@@ -1035,7 +1051,9 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     units. ``kind`` "fwd_mma" (the
     tensor-core forward, a row tile of ``rows``): the bf16 slice and, per
     row, two bf16 h tiles and the block's new h and c staged (both variants
-    take the same, so they take the same tile). ``kind`` "rec_fwd_mma" and
+    take the same, so they take the same tile; at H = 288, the instance for
+    uneven groups, every per-block width sized for the block of
+    ceil(H / 64) groups). ``kind`` "rec_fwd_mma" and
     "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
     (``recurrence_wide_mma_smem``); "rec_bwd_f32": its f32 tensor-core
     sweep past 288 (``recurrence_wide_f32_smem``). At H = 288 "lite_mma"
@@ -1049,6 +1067,8 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     U = H // WIDE_CLUSTER
     if kind == "fwd_mma":
         BR, pad = rows, MMA_PAD
+        if H % 64:
+            U = 8 * -(-H // 64)
         return 4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2 + 2 * BR * (U + pad) * 2
     if kind in ("lite_mma", "lite_mma_uneven"):
         BR, pad, buffers = rows, MMA_PAD, 2
@@ -1082,15 +1102,16 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
     ``LITE_MMA_UNEVEN_ROWS`` there at H = 288 and for "lite_mma_uneven",
-    ``FWD_WIDE_MMA_ROWS`` for
-    "fwd_mma", ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
+    ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
+    H = 288), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
     "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32") for the
     tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
             "lite_mma_uneven": LITE_MMA_UNEVEN_ROWS,
-            "fwd_mma": FWD_WIDE_MMA_ROWS}.get(kind, WIDE_ROWS)
+            "fwd_mma": FWD_WIDE_MMA_ROWS if H % 64 == 0 else FWD_WIDE_MMA_UNEVEN_ROWS,
+            }.get(kind, WIDE_ROWS)
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
     if kind == "rec_bwd_f32":
@@ -1656,8 +1677,8 @@ def bilstm_bwd_mma(
     """One layer's backward sweep on the tensor cores
     (``csrc/bilstm_bwd_mma.cu``); the contract of
     ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
-    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64) and raises
-    for the rest. Row tiles are cut inside each weight group, so nothing is
+    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64 and E = H =
+    80) and raises for the rest. Row tiles are cut inside each weight group, so nothing is
     padded. Its outputs carry no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too: ``BiLSTMStack`` is the way
     in."""
@@ -2065,7 +2086,7 @@ def bilstm_fwd_wide(
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
     its width and dtype: the tensor-core one through
-    :func:`bilstm_fwd_wide_mma` (bf16 at H = 128 and 256; its ``.launches``
+    :func:`bilstm_fwd_wide_mma` (bf16 at H = 128, 256 and 288; its ``.launches``
     then counts it), or ``csrc/bilstm_fwd_wide.cu`` here.
     ``kernel="bilstm_fwd_wide"`` asks for the latter by name (to time it
     beside the other).
@@ -2115,7 +2136,7 @@ def bilstm_fwd_wide_mma(
     """One layer's recurrence over its input gates on the tensor cores
     (``csrc/bilstm_fwd_wide_mma.cu``), eval variant; the contract of
     :func:`bilstm_fwd_wide`. Takes the widths ``fwd_wide_mma_check`` takes
-    (bfloat16, H = 128 and 256) and raises for the rest; the row tile is
+    (bfloat16, H = 128, 256 and 288) and raises for the rest; the row tile is
     ``wide_plan("fwd_mma", ...)``'s. Its outputs carry no graph, so under
     grad mode it refuses an operand that requires grad, on the CPU too."""
     return _fwd_wide_mma(bilstm_fwd_wide_mma, xg, lengths, w_hh, compute_dtype, False)

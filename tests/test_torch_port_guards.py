@@ -97,11 +97,14 @@ def test_every_kernel_source_is_built_and_bound():
     assert "map_shared_rank(" in text and "launch_wide(" in text
     assert "recwide::unit_groups(" in text and "recwide::mapa_u32(" in text
     # so does the tensor-core wide forward: its gate product on mma.sync, the
-    # new h pushed to every block of the cluster through distributed shared memory
+    # new h pushed to every block of the cluster through distributed shared
+    # memory; and its instance for uneven unit groups at H = 288 (two more
+    # products: one for each of the two groups a warp's items may span)
     text = (_build.CSRC / "bilstm_fwd_wide_mma.cu").read_text()
     assert '#include "bilstm_mma.cuh"' in text
     text = text.rsplit("#include", 1)[1]
-    assert text.count("mma_bf16(") == 1 and "map_shared_rank(" in text and "launch_wide(" in text
+    assert text.count("mma_bf16(") == 3 and "map_shared_rank(" in text and "launch_wide(" in text
+    assert "recwide::unit_groups(" in text and "bilstm_fwd_wide_mma_uneven_kernel" in text
     # the bf16 recurrence kernels past 288 share their split, weight copy and
     # gate product (mma_bf16 through lstm_recurrence_wide_mma.cuh, which
     # includes the fragment header): both on 8-block clusters, the forward

@@ -454,8 +454,13 @@ def test_recurrence_check(H, dtype, ok):
         ([40], 80, torch.float32, "bilstm_bwd_f32_onestage"),  # H > 64: one stage
         ([32], 64, torch.bfloat16, "bilstm_bwd_mma"),  # (E + H) % 32 == 0
         ([128], 64, torch.bfloat16, "bilstm_bwd_mma"),
+        ([80], 80, torch.bfloat16, "bilstm_bwd_mma"),  # its <80, 80> instance
+        ([40, 40], 80, torch.bfloat16, "bilstm_bwd_mma"),
+        ([40], 80, torch.bfloat16, "bilstm_bwd"),  # E != H past 64: the CUDA cores
+        ([72], 72, torch.bfloat16, "bilstm_bwd"),  # H % 16 != 0
         ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
         ([64], 60, torch.bfloat16, None),
+        ([48], 80, torch.bfloat16, None),   # no E but 80 past H = 64; bilstm_bwd.cu neither
     ],
 )
 def test_sweep_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
@@ -479,7 +484,8 @@ def test_sweep_kernel_leaves_the_wide_route_alone():
 
 @pytest.mark.parametrize("E_parts,H,ny,threads", [([64], 64, 2, 256), ([64, 64], 64, 1, 384),
                                                   ([32], 32, 2, 128), ([32, 32], 32, 0, 192),
-                                                  ([16, 16], 32, 1, 128)])
+                                                  ([16, 16], 32, 1, 128), ([80], 80, 2, 320),
+                                                  ([40, 40], 80, 1, 320)])
 def test_bwd_mma_plan(E_parts, H, ny, threads):
     """One warp per 8 hidden units, one more per 16 dx columns past the
     first H; the block's tile chunks and shared memory within the kernel's
@@ -496,6 +502,37 @@ def test_bwd_mma_plan(E_parts, H, ny, threads):
         assert 256 * 200 * 2 < smem < 140_000
     with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
         lstm_cuda.bwd_mma_plan(E_parts, H, torch.float32, ny)
+
+
+def test_bwd_mma_plan_at_80():
+    """The tensor-core sweep at E = H = 80 (layer 0 of the two-layer model
+    at embedding 80): 10 warps, one per 8 units, whose m16 rows 8-15 carry
+    all 80 dx columns; 400 tile chunks a step, under 3 x 320; K = 160 and
+    the dh product's 320; shared memory for the resident weights (320
+    permuted rows of 160 + 8), two dgates tiles (8 rows of 320 + 8) and
+    three stages of the x | h, c_prev and two dy tiles: 138,752 B, one
+    block an SM; 8-row tiles make 5 x 10 x 2 = 100 blocks at the train
+    step's 400 rows in 5 groups. Past H = 64 it takes E = H = 80 alone (the
+    shapes ``bilstm_bwd.cu`` took there), so E = 16, 48 and 112, which its
+    formula would fit, keep their padded shapes."""
+    threads, smem = lstm_cuda.bwd_mma_plan([80], 80, torch.bfloat16)
+    assert threads == 320 and (80 + 4 * 80) <= lstm_cuda.BWD_MMA_MAX_CHUNKS * threads
+    assert smem == (320 * 168 * 2 + 2 * 8 * 328 * 2 + 3 * 8 * 2 * (168 + 3 * 88)) == 138752
+    assert 2 * (smem + 1024) > 233472  # one block an SM
+    assert lstm_cuda.bwd_mma_plan([40, 40], 80, torch.bfloat16) == (320, 138752)
+    assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
+    assert lstm_cuda.BWD_MMA_MAX_H == 80 and lstm_cuda.MMA_MAX_H == 64
+    for E_parts, H in (([48], 80), ([16], 80), ([112], 80), ([96], 96), ([80], 96), ([72], 72)):
+        with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+            lstm_cuda.bwd_mma_plan(E_parts, H, torch.bfloat16)
+    # the f32 plans keep their cap
+    with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
+        lstm_cuda.bwd_f32_plan([80], 80, torch.float32)
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan([80], 80, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert lstm_cuda.padded_width([48], 80, dtype) == 80
+    assert lstm_cuda.padded_parts([48], 80, torch.bfloat16) == (80,)
 
 
 def test_mma_tiles_are_cut_inside_each_weight_group():
@@ -1508,7 +1545,7 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (32, torch.bfloat16, "bilstm_fwd_wide"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_fwd_wide"),   # the 288-thread instance
-        (288, torch.bfloat16, "bilstm_fwd_wide"),
+        (288, torch.bfloat16, "bilstm_fwd_wide_mma"),  # its instance for uneven groups
         (320, torch.float32, None),
         (256, torch.float16, None),
     ],
@@ -1527,7 +1564,7 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     a route and never move a layer between routes, over the sweep of
     ``test_tensor_core_wide_kernels_change_no_route``: every (E_parts, H)
     keeps its route, every wide layer has a forward kernel (the tensor-core
-    one in bf16 at H = 128 and 256), and every layer whose widths are whole
+    one in bf16 at H = 128, 256 and 288), and every layer whose widths are whole
     128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
     too), in bf16 every layer with H % 8 == 0 (the masked last gate tile);
     the others keep ``bilstm_wgrad.cu``. Each at the layer's padded shape,
@@ -1542,7 +1579,8 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                 continue
             if route == "wide":
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
-                    "bilstm_fwd_wide_mma" if bf16 and H in (128, 256) else "bilstm_fwd_wide")
+                    "bilstm_fwd_wide_mma" if bf16 and H in (128, 256, 288)
+                    else "bilstm_fwd_wide")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
             if H % 32 == 0 or (bf16 and H % 8 == 0):
                 assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
@@ -1585,6 +1623,75 @@ def test_fwd_wide_mma_plan_fills_the_card_in_fewest_waves():
     h100 = lambda R, smem: 30 if 2 * (smem + 1024) <= 233472 else 15  # noqa: E731
     assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 256, h100) == (32, 15, 106496)
     assert lstm_cuda.wide_plan("fwd_mma", 400, 1, 256, h100)[:2] == (32, 13)
+
+
+def test_fwd_wide_mma_plan_at_288():
+    """The tensor-core wide forward at H = 288 (36 unit groups, 4 or 5 a
+    block): its shared memory by row tile, as the uneven instance lays it
+    out (the bf16 W_hh slice of the 5-group block, 160 permuted gate rows
+    of 288 + 8; two bf16 h tiles of 288 + 8; the staged new h and c of 40
+    units + 8): one block an SM at every tile. It is built for tiles of at
+    most 4 items a warp (16, 32 and 40 rows), though 64 and 80 would fit
+    shared memory. At the train step's 400 rows in 5 groups and in 1, with
+    15 or 16 clusters on the card at once, 32- and 40-row tiles both take
+    two waves (30 and 26 clusters; 20 and 20), and the plan takes the
+    smaller; a small batch takes 16 rows. Its check takes bf16 at 288, not
+    f32."""
+    assert lstm_cuda.wide_smem("fwd_mma", 288, 32) == (
+        160 * 296 * 2 + 2 * 32 * 296 * 2 + 2 * 32 * 48 * 2) == 138752
+    assert lstm_cuda.FWD_WIDE_MMA_UNEVEN_ROWS == (16, 32, 40)
+    assert [lstm_cuda.wide_smem("fwd_mma", 288, r) for r in lstm_cuda.FWD_WIDE_MMA_ROWS] == [
+        116736, 138752, 149760, 182784, 204800]
+    assert all(lstm_cuda.SMEM_LIMIT >= lstm_cuda.wide_smem("fwd_mma", 288, r) > 115712
+               for r in lstm_cuda.FWD_WIDE_MMA_ROWS)  # none fits two blocks an SM
+    for clusters in (15, 16):
+        assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 288, lambda R, s: clusters) == (
+            32, 15, 138752)
+        assert lstm_cuda.wide_plan("fwd_mma", 400, 1, 288, lambda R, s: clusters) == (
+            32, 13, 138752)
+    # the even widths keep every tile
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, 256, lambda R, s: 15)[0] == 80
+    assert lstm_cuda.wide_plan("fwd_mma", 40, 1, 288, lambda R, s: 15)[:2] == (16, 3)
+    # the even widths keep their shared memory
+    assert lstm_cuda.wide_smem("fwd_mma", 256, 80) == 164864
+    assert lstm_cuda.wide_smem("fwd_mma", 128, 80) == 68608
+    lstm_cuda.fwd_wide_mma_check(288, torch.bfloat16)
+    for H, dtype in ((288, torch.float32), (320, torch.bfloat16), (192, torch.bfloat16),
+                     (96, torch.bfloat16)):
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+            lstm_cuda.fwd_wide_mma_check(H, dtype)
+
+
+def test_new_tensor_core_wrappers_take_plain_versions_on_cpu():
+    """On the CPU the tensor-core sweep at E = H = 80 and the wide forward at
+    H = 288 (both variants) run their plain twins, bit for bit, and launch
+    nothing; the CUDA-core kernels asked for by name do the same."""
+    cpu, cd = torch.device("cpu"), torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [80], 80, 2, cd, cpu)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            cd)
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_mma,
+                lstm_cuda.bilstm_fwd_wide_train_mma)
+    before = [f.launches for f in wrappers]
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    want = flat(bidir_layer_sweep(*args))
+    for got in (lstm_cuda.bilstm_bwd_mma(*args), lstm_cuda.bilstm_bwd(*args),
+                lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")):
+        assert all(torch.equal(a, b) for a, b in zip(flat(got), want))
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(3, 10, [16], 288, 5, cd, cpu)
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    for got in (lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    assert [f.launches for f in wrappers] == before
 
 
 @pytest.mark.parametrize("T,B,G,E_parts,H,want", [
@@ -2810,17 +2917,18 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     """The default two-layer model at embedding 80: layer 0 resident (the
-    one-stage sweep in f32, ``bilstm_bwd.cu`` in bf16), the stacked layer
-    padded to 96 on the wide route; its gradients equal the CPU plain
-    path's (1e-4 x max(1, max|grad|) in f32, 2^-7 in bf16)."""
+    one-stage sweep in f32, the tensor-core sweep ``bilstm_bwd_mma.cu`` in
+    bf16, never ``bilstm_bwd.cu``), the stacked layer padded to 96 on the
+    wide route; its gradients equal the CPU plain path's (1e-4 x max(1,
+    max|grad|) in f32, 2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
-    wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd,
+    wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd,
                 lstm_cuda.bilstm_bwd_lite)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(not f32), 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(not f32), 0, 1]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -2866,23 +2974,28 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     (their 288-thread instances: the bf16 layers JAX's lite plan takes past
     256, padded to 288) against their plain twins: 60 rows in 5 weight
     groups, ragged lengths, two dy streams; the row tiles ``wide_plan``
-    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16. In bf16 the lite
-    sweep's dispatch names the tensor-core kernel there, so the CUDA-core
-    one is asked for by name."""
+    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16. In bf16 the
+    dispatch names the tensor-core kernels there (the forward's and the lite
+    sweep's instances for uneven groups), so the CUDA-core ones are asked
+    for by name."""
     H, G, B = 288, 5, 60
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
                                                                  cuda_device, seed=T)
-    assert lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide"
+    f32 = dtype == torch.float32
+    assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
+        "bilstm_fwd_wide" if f32 else "bilstm_fwd_wide_mma")
     assert lstm_cuda.lite_kernel(H, dtype) == (
-        "bilstm_bwd_lite" if dtype == torch.float32 else "bilstm_bwd_lite_mma")
+        "bilstm_bwd_lite" if f32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
                 lstm_cuda.bilstm_bwd_lite)
     before = [f.launches for f in wrappers]
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), want, tol)
-    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), want[:4], tol)
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
+           want, tol)
+    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
+           want[:4], tol)
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
@@ -3184,3 +3297,178 @@ def test_recurrence_wide_f32_rejects_bad_operands_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="no autograd graph"):
         wrapper(xg.clone().requires_grad_(), valid, w, hs, hs, None, None, None, G, cd)
     assert wrapper.launches == before
+
+
+# ------------- the tensor-core sweep at E = H = 80 and wide forward at 288
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,G,B,ny,final", [
+    ([80], 5, 400, 2, True), ([80], 5, 60, 2, False), ([80], 1, 13, 0, False),
+    ([40, 40], 3, 27, 1, True), ([80], 2, 18, 1, True)])
+def test_sweep_mma_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B, ny, final):
+    """The tensor-core sweep's <80, 80> instance (10 warps, rows 8-15 of
+    each warp's dh tile carrying all 80 dx columns) against its plain twin
+    at 3e-2 x max(1, max|ref|): the main path's 400 rows in 5 groups with
+    two dy streams a direction, 1 and 2 input parts, 0-2 dy streams, with
+    and without final-state cotangents, groups of 80, 12, 13, 9 and 9 rows
+    (short tiles), lengths of 0, 1 and T, rows 8-15 short of T. The
+    dispatch hands ``bilstm_bwd`` to it; ``bilstm_bwd.cu`` asked for by name
+    agrees too."""
+    cd, H = torch.bfloat16, 80
+    assert lstm_cuda.sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma"
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B + 3)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma)
+    before = [f.launches for f in wrappers]
+    _close(flat(lstm_cuda.bilstm_bwd_mma(*args)), flat(want), 3e-2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2]
+    _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_sweep_mma_at_80_at_the_main_path_shape_on_card(cuda_device):
+    """Layer 0 of the bf16 two-layer model at embedding 80: E = H = 80, 400
+    rows in 5 groups, two dy streams, T = 1500, the main path's lengths
+    (groups at 0, 1 and T, the rest random), against the plain twin at
+    3e-2 x max(1, max|ref|)."""
+    cd, T, B, G = torch.bfloat16, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [80], 80, G, cd,
+                                                                 cuda_device, seed=12)
+    lengths[:240] = torch.tensor([0, 1, T], device=cuda_device).repeat_interleave(80)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            cd)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    _close(flat(lstm_cuda.bilstm_bwd_mma(*args)), flat(bidir_layer_sweep(*args)), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B,rows", [(5, 400, 32), (1, 400, 40), (5, 60, 16), (3, 27, 32),
+                                      (5, 60, 40), (1, 70, 16)])
+def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, B, rows, T):
+    """The tensor-core wide forward's instance for uneven unit groups at
+    H = 288 (4 or 5 groups a block, the (group, n8 tile) items dealt over 8
+    warps) at each row tile it is built for (pinned with monkeypatch on the
+    plan's candidates), both variants against the plain recurrence at
+    3e-2 x max(1, max|ref|): the main path's 400 rows in 5 groups and in
+    1, groups of 12, 9 and 70 rows (short tiles), lengths of 0, 1 and T.
+    (At 400 rows in 5 groups the 32-row tile is the plan's.)
+    The dispatch names it, the eval and train variants give the same hs
+    bits, and the 288-thread CUDA-core forward by name agrees too."""
+    monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_UNEVEN_ROWS", (rows,))
+    H, cd = 288, torch.bfloat16
+    assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma"
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=B + T + rows)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
+           want, 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E_parts,G", [([272], 5), ([272, 272], 1)])
+def test_fwd_wide_mma_at_288_takes_the_model_layers_on_card(cuda_device, E_parts, G):
+    """Both layers of the bf16 model at embedding 272 (run at H = 288) at
+    the train step's 400 rows and T = 300: ``layer_fwd`` (both variants)
+    launches the tensor-core forward and never the CUDA-core one, and agrees
+    with the plain layer at the true widths (3e-2 x max(1, max|ref|))."""
+    H, cd, T, B = 272, torch.bfloat16, 300, 400
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=G + 1)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
+    ev = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16])
+def test_two_layer_model_at_embedding_272_on_card(cuda_device, dtype):
+    """The bf16 two-layer model at embedding 272, both layers run at
+    H = 288 on the wide route: its forwards are the tensor-core forward's
+    instance for uneven groups (never the 288-thread CUDA-core one) and its
+    sweeps the tensor-core lite sweep's; its gradients equal the CPU plain
+    path's within 2^-7 x max(1, max|grad|)."""
+    wrappers = (lstm_cuda.bilstm_fwd_wide_train_mma, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=dtype, embedding_size=272)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2, 0]
+    want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=272)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 2.0 ** -7 * max(
+            1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_sweep_mma_at_80_and_fwd_wide_mma_at_288_reject_bad_operands_on_card(cuda_device):
+    """What the two kernels do not take raises and launches nothing, with no
+    fall back: the sweep at E = 48, H = 80 and in f32 at E = H = 80, a
+    wrong-typed weight; the forward at 288 in f32, at 320, and a wrong-typed
+    or wrong-shaped operand."""
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    before = [f.launches for f in wrappers]
+    for E_parts, dtype, match in (([48], torch.bfloat16, "bilstm_bwd_mma kernel takes bfloat16"),
+                                  ([80], torch.float32, "bilstm_bwd_mma kernel takes bfloat16")):
+        parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 16, E_parts, 80, 2, dtype,
+                                                                     cuda_device)
+        hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, dtype,
+                                                   with_states=True)
+        with pytest.raises(ValueError, match=match):
+            lstm_cuda.bilstm_bwd_mma(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                                     dy[:2], dy[2:], dhn, dcn, dtype)
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 16, [80], 80, 2,
+                                                                 torch.bfloat16, cuda_device)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.bfloat16,
+                                               with_states=True)
+    with pytest.raises(ValueError, match="w_ih must be a contiguous"):
+        lstm_cuda.bilstm_bwd_mma(parts, lengths, w_ih.float(), w_hh, bias, hs_f, hs_b, cs_f,
+                                 cs_b, dy[:2], dy[2:], dhn, dcn, torch.bfloat16)
+    for H, dtype in ((288, torch.float32), (320, torch.bfloat16)):
+        xg = torch.zeros(2, 3, 8, 4 * H, device=cuda_device)
+        w = torch.zeros(2, 4 * H, H, dtype=dtype, device=cuda_device)
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+            lstm_cuda.bilstm_fwd_wide_mma(xg, lengths[:8], w, dtype)
+    xg = torch.zeros(2, 3, 8, 4 * 288, device=cuda_device)
+    w = torch.zeros(2, 4 * 288, 288, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+        lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths[:8], w.float(), torch.bfloat16)
+    with pytest.raises(ValueError, match="lengths must be a contiguous"):
+        lstm_cuda.bilstm_fwd_wide_mma(xg, lengths[:7], w, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before

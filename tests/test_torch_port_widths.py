@@ -119,8 +119,71 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             assert lstm_cuda.lite_kernel(Hp, dtype) == want, (what, H, Hp)
     assert 288 in wide and 256 in wide and 96 in wide
 
+def _grid_plans(dtype):
+    """``(what, H) -> (route, Hp, Ep, kernels)`` over the grid of
+    ``test_every_width_jax_takes_names_hand_kernels``: each step's kernel
+    at the layer's padded shape, as that test names them."""
+    plans = {}
+    for H in range(1, 289):
+        for what, (B, G, parts) in SHAPES.items():
+            E_parts = parts(H)
+            if not jax_takes(B, G, E_parts, H, dtype):
+                continue
+            route, Hp, Ep = lstm_cuda._layer_plan(tuple(E_parts), H, dtype)
+            if route == "resident":
+                kernels = (lstm_cuda.fwd_kernel(Ep, Hp, dtype),
+                           lstm_cuda.sweep_kernel(Ep, Hp, dtype))
+            else:
+                kernels = (lstm_cuda.gates_kernel(Ep, Hp, dtype),
+                           lstm_cuda.wide_fwd_kernel(Hp, dtype), lstm_cuda.lite_kernel(Hp, dtype))
+            plans[what, H] = (route, Hp, Ep, kernels + (lstm_cuda.wgrad_kernel(Ep, Hp, dtype),))
+    return plans
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_80_sweep_and_288_forward_change_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the tensor-core sweep at E = H = 80 and the tensor-core wide
+    forward at 288 (the plans with those two caps set back:
+    ``BWD_MMA_MAX_H`` at ``MMA_MAX_H``, ``FWD_WIDE_MMA_WIDTHS`` without 288),
+    and the same kernel at every step, except two: in bf16 the resident
+    sweep at Hp = 80 (layer 0 of 65-80 units but 72, run at E = H = 80) is
+    ``bilstm_bwd_mma`` where it was ``bilstm_bwd``, and the wide forward at
+    Hp = 288 (257-288 units) ``bilstm_fwd_wide_mma`` where it was
+    ``bilstm_fwd_wide``. f32 changes nothing."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "BWD_MMA_MAX_H", lstm_cuda.MMA_MAX_H)
+            m.setattr(lstm_cuda, "FWD_WIDE_MMA_WIDTHS", (128, 256))
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((Hp, Ep))
+            assert not diff, key
+    if dtype == torch.float32:
+        assert changed == {}
+    else:
+        assert changed == {("bilstm_bwd", "bilstm_bwd_mma"): {(80, (80,))},
+                           ("bilstm_fwd_wide", "bilstm_fwd_wide_mma"): {
+                               (288, (272,)), (288, (288,)), (288, (272, 272)),
+                               (288, (288, 288))}}
+        assert sum(1 for (what, H), p in after.items()
+                   if p[3][1] == "bilstm_bwd_mma" and p[1] == 80) == 2 * 15
+
+
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
     ([80], 80, torch.float32, 80, "resident"),     # the one-stage f32 sweep
+    ([80], 80, torch.bfloat16, 80, "resident"),    # the tensor-core sweep at E = H = 80
     ([80, 80], 80, torch.float32, 96, "wide"),
     ([80, 80], 80, torch.bfloat16, 96, "wide"),
     ([48, 48], 48, torch.float32, 48, "resident"),  # the f32 tensor-core sweep takes E = 96
@@ -138,6 +201,8 @@ def test_padded_width_and_route(E_parts, H, dtype, Hp, route):
         assert lstm_cuda.padded_parts(E_parts, H, dtype) == (56, 56)
     if (E_parts, H, dtype) == ([80], 80, torch.float32):
         assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_f32_onestage"
+    if (E_parts, H, dtype) == ([80], 80, torch.bfloat16):
+        assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_mma"
     if (E_parts, H, dtype) == ([48, 48], 48, torch.float32):
         assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == "bilstm_bwd_f32"
 
