@@ -81,10 +81,17 @@ exits non-zero with no result):
    bf16: ``layer_fwd`` and ``layer_bwd`` against the plain layer at the
    true widths, the kernels they ran, their times beside their bounds at
    the true and the padded widths and cuDNN at the true ones; the
-   two-layer model at embedding 100 at the train shape (80 pairs,
-   T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 and at
-   272 in bf16 (the tensor-core forward and lite sweep, never the
-   CUDA-core ones), each with the kernels it must launch and must not;
+   two-layer model at embedding 100 and 272 at the train shape (80 pairs,
+   T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 (at 272
+   in bf16 the tensor-core forward and lite sweep, never the CUDA-core
+   ones; in f32 at both the f32 tensor-core lite sweep
+   ``bilstm_bwd_lite_f32``, never ``bilstm_bwd_lite.cu``), each with the
+   kernels it must launch and must not; the f32 tensor-core lite sweep on
+   layer 0 at embedding 272 (H = 288), of the scaled configuration (256)
+   and at embedding 100 (128), against its twin and in turns with
+   ``bilstm_bwd_lite.cu`` by name, at each row tile, beside its bound and
+   cuDNN; ``bilstm_bwd.cu`` in bf16 on its main path (layer 0 at embedding
+   72, E = H = 72), timed beside its bound and cuDNN;
    the CUDA-core wide forward (both variants) and lite sweep in bf16 at
    the stacked layer at embedding 80 (run at H = 96, their main path) and
    by name on layer 0 at embedding 272 (their 288-thread instances),
@@ -119,7 +126,8 @@ exits non-zero with no result):
    dtype (cuBLAS ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32
    off; in bf16 the gates, the forward (both variants), the sweep and wgrad
    new, old, old, new, and the forward and the sweep at each of their row
-   tiles; in f32 wgrad new, old, old, new;
+   tiles; in f32 wgrad and the lite sweep (``bilstm_bwd_lite_f32``, three
+   tf32 passes) new, old, old, new;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
@@ -128,10 +136,10 @@ exits non-zero with no result):
    resident kernels or the CUDA-core gates, forward, sweep and wgrad, a
    profiled step and peak memory; then one step's gradients at embedding
    256 and 3 layers held against the CPU plain path in f32, with an eval
-   step after it (which must run ``bilstm_gates.cu``,
-   ``bilstm_fwd_wide.cu`` in both variants and ``bilstm_bwd_lite.cu``:
-   their main path, and ``bilstm_wgrad_f32``) and in bf16 (which must run
-   the tensor-core ones);
+   step after it (which must run ``bilstm_gates.cu`` and
+   ``bilstm_fwd_wide.cu`` in both variants: their main path, and
+   ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``) and in bf16 (which
+   must run the tensor-core ones);
 8. recurrence_kernel — the time-major recurrence op's kernels (forward,
    sweep, weight gradient) against their plain versions at T = 1500,
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
@@ -151,17 +159,17 @@ exits non-zero with no result):
    gradient one batched cuBLAS product on the rounded operands and, in
    bf16, the rounding, layout and product together); then the op past 256
    units (H = 288 on the cluster kernels' 288-thread instance, 512 and
-   1024 in f32 on the global-weight one and in bf16 on the tensor-core
-   kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``) against its twins, the
-   bf16 tensor-core kernels alone at H = 320, 512 and 1024 with masks from
-   lengths and with holes (2^-7 x max(1, max|ref|)) beside the
-   global-weight instance by name, the f32 tensor-core sweep
-   ``lstm_recurrence_bwd_wide_f32`` (three tf32 passes) alone at the same
-   widths and masks (1e-4 x max(1, max|ref|)) beside the global-weight
-   instance by name, and one call at H = 512 (400 rows, T = 300) timed
-   beside its bound and cuDNN, the tensor-core kernels and the
-   global-weight instance in turns (new, old, old, new; in f32 the
-   sweep), the f32 sweep's bound at 495/3 TFLOP/s beside the one at 67;
+   1024 on the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``
+   in bf16 and ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32) against its
+   twins, the bf16 tensor-core kernels alone at H = 320, 512 and 1024 with
+   masks from lengths and with holes (2^-7 x max(1, max|ref|)) beside the
+   global-weight instance by name, the f32 tensor-core forward and sweep
+   (three tf32 passes) alone at the same widths and masks (1e-4 x max(1,
+   max|ref|)) beside the global-weight instance by name, and one call at
+   H = 512 (400 rows, T = 300) timed beside its bound and cuDNN, the
+   tensor-core kernels and the global-weight instance in turns (new, old,
+   old, new), the f32 forward at each of its row tiles, the f32 kernels'
+   bounds at 495/3 TFLOP/s beside the ones at 67;
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -169,13 +177,15 @@ exits non-zero with no result):
    CUDA-core wgrad and the layer kernels 0; then 2 f32 steps (and a
    profiled one), whose sweep and wgrad must be ``lstm_recurrence_bwd_f32``
    and the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
-   embedding 128, whose sweep only the cluster kernel takes, and 2 f32 steps
-   of a one-layer model at embedding 320, whose sweep only the f32
-   tensor-core sweep past 288 takes; a profiled step, peak memory, and the card's gradients against the CPU's on the
-   same backend, in f32 and in bf16, and of a one-layer model at embedding
-   320 (in f32 the forward on its global-weight instance and the f32
-   tensor-core sweep, never the cluster sweep; in bf16 the tensor-core
-   kernels past 288, and never the global-weight instance);
+   embedding 128, whose sweep only the cluster kernel takes; a profiled
+   step, peak memory, and the card's gradients against the CPU's on the
+   same backend, in f32 and in bf16; then, on the default backend (which
+   takes the op past 288 units a layer), 2 f32 steps and an eval step of a
+   one-layer model at embedding 320, timed, and the card's gradients of
+   that model against the CPU's (in f32 the tensor-core forward and sweep
+   past 288, three tf32 passes, never the global-weight instances; in bf16
+   the tensor-core kernels past 288, never the global-weight instance; no
+   layer kernel);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -183,13 +193,14 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty kernels, each with launches > 0 on a
+11. the ``kernels`` line (thirty-two kernels, each with launches > 0 on a
     main path; the 288-thread instances, the tensor-core forward and lite
-    sweep at 288, the bf16 sweep and wgrad at H = 80 and the f32
-    recurrence op past 288 as ``h288_*``, ``h80_*`` and ``h512_*`` fields
-    of their kernels' entries;
-    the bf16 op past 288 and the f32 sweep past 288 as entries of their
-    own), the card's name and power limit, and the result.
+    sweep at 288, the bf16 sweep and wgrad at H = 80 and the global-weight
+    instances past 288 as ``h288_*``, ``h80_*`` and ``h512_*`` fields of
+    their kernels' entries; the bf16 op past 288, the f32 forward and
+    sweep past 288 and the f32 tensor-core lite sweep as entries of their
+    own, the last with ``h288_*`` and ``h128_*``), the card's name and
+    power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -244,9 +255,12 @@ def phase_build() -> dict:
         FWD_WIDE_MMA_ROWS,
         FWD_WIDE_MMA_WIDTHS,
         GATES_MMA_SMEM,
+        LITE_F32_ROWS,
+        LITE_F32_WIDTHS,
         LITE_MMA_ROWS,
         LITE_MMA_UNEVEN_ROWS,
         REC_WGRAD_MMA_SMEM,
+        REC_WIDE_F32_FWD_ROWS,
         REC_WIDE_F32_ROWS,
         REC_WIDE_MMA_ROWS,
         SMEM_LIMIT,
@@ -320,10 +334,14 @@ def phase_build() -> dict:
             for rows in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
                 smem[f"recurrence_{kind}_wide_mma H={H} rows={rows}"] = \
                     recurrence_wide_mma_smem(kind, H, rows)
-            # the f32 tensor-core sweep past 288
-            for rows in REC_WIDE_F32_ROWS[1 if H <= 512 else 2] if kind == "bwd" else ():
-                smem[f"recurrence_bwd_wide_f32 H={H} rows={rows}"] = \
-                    recurrence_wide_f32_smem(H, rows)
+            # the f32 tensor-core forward and sweep past 288
+            table = REC_WIDE_F32_ROWS if kind == "bwd" else REC_WIDE_F32_FWD_ROWS
+            for rows in table[1 if H <= 512 else 2]:
+                smem[f"recurrence_{kind}_wide_f32 H={H} rows={rows}"] = \
+                    recurrence_wide_f32_smem(H, rows, kind)
+    for H in LITE_F32_WIDTHS:
+        for rows in LITE_F32_ROWS:
+            smem[f"bwd_lite_f32 H={H} rows={rows}"] = wide_smem("lite_f32", H, rows)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -757,7 +775,8 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 
 # the f32 kernels on the tensor cores: three tf32 products for each f32 one
 TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
-           "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32")
+           "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
+           "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -1252,7 +1271,9 @@ def train_counters():
             "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma,
             "lstm_recurrence_fwd_wide_mma": L.lstm_recurrence_fwd_wide_mma,
             "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma,
-            "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32}
+            "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32,
+            "lstm_recurrence_fwd_wide_f32": L.lstm_recurrence_fwd_wide_f32,
+            "bilstm_bwd_lite_f32": L.bilstm_bwd_lite_f32}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1392,14 +1413,15 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                         "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel",
                         "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
-                        "lstm_recurrence_fwd_wide_mma_kernel"),
+                        "lstm_recurrence_fwd_wide_mma_kernel",
+                        "lstm_recurrence_fwd_wide_f32_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
                           "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
                           "bilstm_bwd_mma_kernel", "bilstm_bwd_lite_mma_kernel",
                           "bilstm_bwd_lite_mma_uneven_kernel",
                           "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
-                          "lstm_recurrence_bwd_wide_f32_kernel"),
+                          "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1494,11 +1516,12 @@ PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 1
                  (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
                  (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
-# the wide route's kernels, by dtype (the tensor-core ones at 128, 256 and
-# 288; in bf16 at 96 the CUDA-core forward and sweep)
+# the wide route's kernels at 128, 256 and 288, by dtype (the tensor-core
+# ones; in f32 the lite sweep's three tf32 passes, the CUDA-core gates and
+# forward); at 96 both dtypes keep the CUDA-core forward and sweep
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
-WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
+WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
             "bilstm_wgrad_f32")
 WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
@@ -1521,8 +1544,7 @@ WIDTH_STEPS = (
     ("layer", 272, torch.bfloat16, WIDE_288_BF16),
     ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd",
                                    "bilstm_wgrad_mma", "bilstm_fwd_wide", "bilstm_bwd_lite")),
-    ("layer", 112, torch.float32, ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                                   "bilstm_bwd_lite", "bilstm_wgrad_f32")),
+    ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
                                     "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
                                     "bilstm_wgrad_mma")),
@@ -1737,12 +1759,142 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     return out
 
 
+# the f32 tensor-core lite sweep's main paths (E parts, H, the model): layer
+# 0 of the f32 two-layer models at embedding 272 (run at H = 288) and 100
+# (at H = 128, parts of 112), and layer 0 of the scaled configuration
+LITE_F32_LAYERS = ((288, [272], 272, "layer 0 at embedding 272"),
+                   (256, [256], 256, "layer 0 of the scaled configuration"),
+                   (128, [100], 100, "layer 0 at embedding 100"))
+
+
+def lite_f32_kernels(dev, G=G_TRAIN, ny=2) -> dict:
+    """The f32 tensor-core lite sweep ``bilstm_bwd_lite_f32.cu`` (three
+    tf32 passes) at each of ``LITE_F32_LAYERS``, 400 rows in 5 weight
+    groups, two dy streams a direction, the input gates from
+    ``bilstm_gates`` and the streams from ``bilstm_fwd_wide_train``: held
+    against its plain twin with the main path's lengths at T = 300 (1e-4 x
+    max(1, max|ref|); ``bilstm_bwd_lite.cu`` by name too), then timed at
+    T = 1500, full lengths, in turns with ``bilstm_bwd_lite.cu`` by name
+    (new, old, old, new), at each row tile it is built for, beside its
+    bound at 495/3 TFLOP/s at the padded H and the true H (the CUDA-core
+    kernel's at 67), the twin (timed once, in the check) and cuDNN's
+    one-layer f32 backward for the input at the true widths, TF32 off; its
+    plan's row tile and the clusters the card holds at once."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite
+
+    cd, name = torch.float32, "bilstm_bwd_lite_f32"
+    out = {}
+    for Hp_want, E_parts, H, what in LITE_F32_LAYERS:
+        Hp, Ep = L.padded_width(E_parts, H, cd), list(L.padded_parts(E_parts, H, cd))
+        if (Hp, L.lite_kernel(Hp, cd)) != (Hp_want, name):
+            raise AssertionError(f"{what} in f32 runs at H={Hp} on {L.lite_kernel(Hp, cd)}")
+        row = {"layer": what, "B": B_TRAIN, "T": T_TRAIN, "check_T": 300, "E_parts": E_parts,
+               "H": H, "padded_H": Hp, "padded_parts": Ep, "G": G, "ny": ny,
+               "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        for full in (False, True):
+            parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+                Ep, Hp, G, cd, dev, SEED + 60 + Hp, full_lengths=full, ny=ny,
+                T=T_TRAIN if full else 300)
+            xg = L.bilstm_gates(parts, w_ih, bias, cd)
+            hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+            args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+            new = lambda: L.bilstm_bwd_lite(*args)  # noqa: E731
+            old = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")  # noqa: E731
+            if full:
+                row["ms"], row["ms_again"], row["cuda_core_ms"] = in_turns(new, old, 3)
+                keep = L.LITE_F32_ROWS
+                try:
+                    for R in keep:
+                        L.LITE_F32_ROWS = (R,)
+                        row[f"rows_{R}_ms"] = time_ms(new, 3)
+                finally:
+                    L.LITE_F32_ROWS = keep
+                row["rows"], row["tiles"], row["smem"] = L.wide_plan(
+                    "lite_f32", B_TRAIN, G, Hp, L._max_clusters(name, cd, Hp, dev))
+                row["max_active_clusters"] = {
+                    f"rows={c[3]}": v for c, v in L._cluster_counts.items()
+                    if c[0] == name and c[2] == Hp}
+            else:
+                ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
+                got = new()
+                res = {"dgates": rel_err(got, ref, TOL[cd]),
+                       "cuda_core_dgates": rel_err(old(), ref, TOL[cd])}
+                row["scaled_err"] = scaled_err(got, ref)
+                torch.cuda.synchronize()
+                row["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+                if not all(ok for _, ok in res.values()):
+                    emit({"phase": "widths", "failed": row})
+                    raise AssertionError(f"the f32 lite sweep disagrees with its twin: {row}")
+                del ref, got
+            del parts, xg, hs_f, hs_b, cs_f, cs_b, args
+        for key, Hw, Ew in (("", Hp, sum(Ep)), ("true_", H, sum(E_parts))):
+            work = wide_layer_work(Ew, Hw, G, 4, ny)["lite"]
+            row[f"{key}bound_ms"], row[f"{key}bound_by"] = bound(
+                [(*work, kernel_peak(cd, name))])
+            row[f"{key}cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
+        row["library_ms"] = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H,
+                                              layers=1)["cudnn_bwd_data_ms"]
+        out[f"h{Hp}"] = row
+    return out
+
+
+def bwd_72_kernel(dev, G=G_TRAIN, ny=2) -> dict:
+    """``bilstm_bwd.cu`` in bf16 on its own main path: layer 0 of the bf16
+    two-layer model at embedding 72 (E = H = 72, which the tensor-core sweep
+    does not take: H % 16 != 0), 400 rows in 5 groups, two dy streams a
+    direction: held against its plain twin with the main path's lengths at
+    T = 300 (3e-2 x max(1, max|ref|)), then timed at T = 1500, full
+    lengths, beside its bound at the bf16 rate and at 67 TFLOP/s (its f32
+    FMAs), the twin (timed once) and cuDNN's one-layer bf16 backward for
+    the input, TF32 off."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
+
+    cd, E_parts, H = torch.bfloat16, [72], 72
+    if (L.layer_route(E_parts, H, cd), L.padded_width(E_parts, H, cd),
+            L.sweep_kernel(E_parts, H, cd)) != ("resident", 72, "bilstm_bwd"):
+        raise AssertionError("layer 0 at embedding 72 in bf16 is not bilstm_bwd.cu's")
+    row = {"layer": "layer 0 at embedding 72", "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
+           "E": 72, "H": H, "G": G, "ny": ny, "dtype": "bfloat16",
+           "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    for full in (False, True):
+        parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+            E_parts, H, G, cd, dev, SEED + 72, full_lengths=full, ny=ny,
+            T=T_TRAIN if full else 300)
+        hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
+                                                                bias, cd)
+        args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+        if full:
+            row["ms"] = time_ms(lambda: L.bilstm_bwd(*args), 3)
+        else:
+            ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+            got = L.bilstm_bwd(*args)
+            flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
+            res = [rel_err(a, b, TOL[cd]) for a, b in zip(flat(got), flat(ref))]
+            torch.cuda.synchronize()
+            row["max_abs_err"] = max(e for e, _ in res)
+            if not all(ok for _, ok in res):
+                emit({"phase": "widths", "failed": row})
+                raise AssertionError(f"bilstm_bwd.cu at E = H = 72 disagrees: {row}")
+            del ref, got
+        del parts, hs_f, hs_b, cs_f, cs_b, args
+    work = train_layer_work(72, H, 2, ny)["bwd"]
+    row["bound_ms"], row["bound_by"] = bound([(*work, kernel_peak(cd))])
+    row["cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
+    row["library_ms"] = cudnn_stack_times(dev, cd, E=72, H=72, layers=1)["cudnn_bwd_data_ms"]
+    return row
+
+
 def phase_widths(dev) -> dict:
     """The widths the JAX package's kernels take and the port's kernels did
     not, on the card: ``padded_layer_timings``; the two-layer model at
-    embedding 100 at the train shape (80 pairs, T = 1500, dropout on, 2
-    steps and an eval step) in f32 and bf16 and one at embedding 272 in
-    bf16 (its steps timed), each with the kernels it launched;
+    embedding 100 and 272 at the train shape (80 pairs, T = 1500, dropout
+    on, 2 steps and an eval step) in f32 and bf16 (their steps timed), each
+    with the kernels it launched (in f32 the tensor-core lite sweep, never
+    ``bilstm_bwd_lite.cu``); ``lite_f32_kernels`` (the f32 tensor-core lite
+    sweep at 288, 256 and 128 in turns with ``bilstm_bwd_lite.cu``);
+    ``bwd_72_kernel`` (``bilstm_bwd.cu`` on its main path);
     ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, with the
     tensor-core forward and lite sweep) and at embedding 80's stacked layer
     (H = 96);
@@ -1762,10 +1914,14 @@ def phase_widths(dev) -> dict:
     for key, dtype, width, expect in (("embedding_100_float32", torch.float32, 100, WIDE_F32),
                                       ("embedding_100_bfloat16", torch.bfloat16, 100, WIDE_BF16),
                                       ("embedding_272_bfloat16", torch.bfloat16, 272,
-                                       WIDE_288_BF16)):
-        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + ("bilstm_wgrad",)) - set(expect)
+                                       WIDE_288_BF16),
+                                      ("embedding_272_float32", torch.float32, 272, WIDE_F32)):
+        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16
+                     + ("bilstm_wgrad", "bilstm_bwd_lite")) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
+    lite_f32 = lite_f32_kernels(dev)
+    bwd_72 = bwd_72_kernel(dev)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
                                         "bilstm_fwd_wide", "bilstm_bwd_lite")
@@ -1779,6 +1935,7 @@ def phase_widths(dev) -> dict:
             lstm.DEFAULT_BACKEND = "auto"
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
+           "lite_f32": lite_f32, "bwd_72": bwd_72,
            "kernels_288": kernels_288, "kernels_96": kernels_96, "grad_checks": steps}
     emit(out)
     return out
@@ -2156,9 +2313,12 @@ def phase_wide_kernel(dev) -> dict:
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
             # new, old, old, new: a tensor-core kernel and the CUDA-core one
-            # by name, on the same operands; in bf16 every kernel, in f32 wgrad
+            # by name, on the same operands; in bf16 every kernel, in f32
+            # wgrad and the lite sweep
             turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
+                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")),
+                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
+                      lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite"))]
             if bf16:
                 turns += [
                     ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
@@ -2167,14 +2327,11 @@ def phase_wide_kernel(dev) -> dict:
                      lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
                      lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide")),
-                    ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
-                     lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite")),
                 ]
             else:
                 add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
                 add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(*fwd_args), 3))
                 add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(*fwd_args), 3))
-                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
             for key, new, old in turns:
                 a, b, c = in_turns(new, old, 3)
                 add(f"{key}_ms", a)
@@ -2254,13 +2411,15 @@ def phase_wide_kernel(dev) -> dict:
                 work[k][0] += f
                 work[k][1] += b
             del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args, fwd_args, turns
-        # the f32 wgrad runs three tf32 products for each f32 one; the
-        # CUDA-core kernel's bound at the f32 rate beside it
+        # the f32 wgrad and lite sweep run three tf32 products for each f32
+        # one; the CUDA-core kernels' bounds at the f32 rate beside them
         add_bounds(t, work, dtype, None if bf16 else {
-            "wgrad": kernel_peak(dtype, "bilstm_wgrad_f32")})
+            "wgrad": kernel_peak(dtype, "bilstm_wgrad_f32"),
+            "lite": kernel_peak(dtype, "bilstm_bwd_lite_f32")})
         if not bf16:
-            t["wgrad_cuda_core_bound_ms"], t["wgrad_cuda_core_bound_by"] = bound(
-                [(*work["wgrad"], PEAK_F32_FLOPS)])
+            for key in ("wgrad", "lite"):
+                t[f"{key}_cuda_core_bound_ms"], t[f"{key}_cuda_core_bound_by"] = bound(
+                    [(*work[key], PEAK_F32_FLOPS)])
         timings[name] = t
     timings["row4"] = row4_timings(dev)
     cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
@@ -2309,6 +2468,7 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
                 "fwd_wide": "bilstm_fwd_wide_kernel",
                 "lite_mma": "bilstm_bwd_lite_mma_kernel",
                 "lite_cuda_core": "bilstm_bwd_lite_kernel",
+                "lite_f32": "bilstm_bwd_lite_f32_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel",
                 "wgrad_cuda_core": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel"),
                 "gemm": ("gemm", "nvjet", "xmma")})
@@ -2327,18 +2487,19 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
             f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
             f"gates, forward, sweep or wgrad: {old}")
     del trainer, net
-    # card gradients at the scaled widths: in f32 (the CUDA-core gates, wide
-    # forward and lite sweep, whose main path this step and the eval step
-    # after it are, and the 3xTF32 wgrad) and in bf16 (the tensor-core ones)
+    # card gradients at the scaled widths: in f32 (the CUDA-core gates and
+    # wide forward, whose main path this step and the eval step after it
+    # are, and the 3xTF32 lite sweep and wgrad) and in bf16 (the tensor-core
+    # ones)
     grad_check = train_grad_check(dev, eval_step=True, embedding_size=E_SCALED,
                                   rnn_num_layers=LAYERS_SCALED)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16, embedding_size=E_SCALED,
                                        rnn_num_layers=LAYERS_SCALED)
     for check, want, never in (
-            (grad_check, ("bilstm_gates", "bilstm_bwd_lite", "bilstm_fwd_wide_train",
+            (grad_check, ("bilstm_gates", "bilstm_bwd_lite_f32", "bilstm_fwd_wide_train",
                           "bilstm_fwd_wide", "bilstm_wgrad_f32"),
              ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_fwd_wide_train_mma",
-              "bilstm_fwd_wide_mma", "bilstm_wgrad")),
+              "bilstm_fwd_wide_mma", "bilstm_wgrad", "bilstm_bwd_lite")),
             (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma",
                                "bilstm_fwd_wide_train_mma"),
              ("bilstm_gates", "bilstm_bwd_lite", "bilstm_wgrad", "bilstm_fwd_wide_train"))):
@@ -2568,7 +2729,6 @@ def recurrence_past_288(dev) -> dict:
                      "fwd": L.recurrence_fwd_kernel(H, dtype),
                      "sweep": L.recurrence_sweep_kernel(H, dtype),
                      "wgrad": L.recurrence_wgrad_kernel(H, dtype),
-                     "global_weights": H > L.WIDE_MAX_THREADS and dtype == torch.float32,
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "tol": f"{tol} x max(1, max|ref|)"}
             checks.append(check)
@@ -2609,45 +2769,62 @@ def recurrence_past_288(dev) -> dict:
         for mask in ("lengths", "holes"):
             xg, valid, w, dhs, dhn, dcn = recurrence_inputs(64, H, 2, cd, dev, mask,
                                                             SEED + 11 * H, B=16)
-            hs, cs = recurrence_fwd(xg, valid, w, 2, cd)[:2]
+            ref = recurrence_fwd(xg, valid, w, 2, cd)
+            hs, cs = ref[:2]
             args = (xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd)
             dxg = recurrence_sweep(*args)
             res = {"dxg": rel_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg, tol)}
+            got = L.lstm_recurrence_fwd_wide_f32(xg, valid, w, 2, cd)
+            fres = {n: rel_err(a, b, tol) for n, a, b in zip(("hs", "cs", "hn", "cn"), got, ref)}
             old = {"dxg": rel_err(L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
-                                  dxg, tol)}
+                                  dxg, tol),
+                   "hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, 2, cd,
+                                                       kernel="lstm_recurrence_fwd")[0],
+                                 ref[0], tol)}
             torch.cuda.synchronize()
             check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": mask,
                      "dtype": "float32", "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "scaled_err": scaled_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg),
+                     "fwd_max_abs_err": {n: e for n, (e, _) in fres.items()},
+                     "fwd_scaled_err": max(scaled_err(a, b) for a, b in zip(got, ref)),
                      "tol": f"{tol} x max(1, max|ref|)",
                      "global_weights_max_abs_err": {n: e for n, (e, _) in old.items()}}
             wide_f32_checks.append(check)
-            if not all(ok for _, ok in list(res.values()) + list(old.values())):
+            if not all(ok for _, ok in list(res.values()) + list(fres.values())
+                       + list(old.values())):
                 emit({"phase": "recurrence_kernel", "failed": check})
-                raise AssertionError(f"the f32 recurrence sweep past 288 disagrees: {check}")
-            del xg, valid, w, dhs, hs, cs, args, dxg
+                raise AssertionError(f"an f32 recurrence kernel past 288 disagrees: {check}")
+            del xg, valid, w, dhs, hs, cs, args, dxg, ref, got
     # the same at the main path's rows (400 in 5 groups: the row tile the
     # embedding-320 f32 model and the timed call below run), short T
     for H in (320, 512):
         xg, valid, w, dhs, dhn, dcn = recurrence_inputs(16, H, G_TRAIN, cd, dev, "holes",
                                                         SEED + 13 * H)
-        hs, cs = recurrence_fwd(xg, valid, w, G_TRAIN, cd)[:2]
+        ref = recurrence_fwd(xg, valid, w, G_TRAIN, cd)
+        hs, cs = ref[:2]
         args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G_TRAIN, cd)
         dxg = recurrence_sweep(*args)
         got = L.lstm_recurrence_bwd_wide_f32(*args)
         e, ok = rel_err(got, dxg, tol)
+        fgot = L.lstm_recurrence_fwd_wide_f32(xg, valid, w, G_TRAIN, cd)
+        fres = {n: rel_err(a, b, tol) for n, a, b in zip(("hs", "cs", "hn", "cn"), fgot, ref)}
         torch.cuda.synchronize()
         check = {"B": B_TRAIN, "T": 16, "D": D_REC, "H": H, "G": G_TRAIN, "mask": "holes",
                  "dtype": "float32", "rows": L.wide_plan(
                      "rec_bwd_f32", B_TRAIN, G_TRAIN, H, L._max_clusters(
                          "lstm_recurrence_bwd_wide_f32", cd, H, dev), D_REC)[0],
+                 "fwd_rows": L.wide_plan(
+                     "rec_fwd_f32", B_TRAIN, G_TRAIN, H, L._max_clusters(
+                         "lstm_recurrence_fwd_wide_f32", cd, H, dev), D_REC)[0],
                  "max_abs_err": {"dxg": e}, "scaled_err": scaled_err(got, dxg),
+                 "fwd_max_abs_err": {n: v for n, (v, _) in fres.items()},
+                 "fwd_scaled_err": max(scaled_err(a, b) for a, b in zip(fgot, ref)),
                  "tol": f"{tol} x max(1, max|ref|)"}
         wide_f32_checks.append(check)
-        if not ok:
+        if not ok or not all(k for _, k in fres.values()):
             emit({"phase": "recurrence_kernel", "failed": check})
-            raise AssertionError(f"the f32 recurrence sweep past 288 disagrees: {check}")
-        del xg, valid, w, dhs, hs, cs, args, dxg, got
+            raise AssertionError(f"an f32 recurrence kernel past 288 disagrees: {check}")
+        del xg, valid, w, dhs, hs, cs, args, dxg, got, ref, fgot
     H, G, T = 512, G_TRAIN, 300
     for dtype in (torch.float32, torch.bfloat16):
         size = torch.empty((), dtype=dtype).element_size()
@@ -2672,6 +2849,8 @@ def recurrence_past_288(dev) -> dict:
         if dtype == torch.float32:
             res["dxg_global_weights"] = rel_err(
                 L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, TOL[dtype])
+            res["hs_global_weights"] = rel_err(L.lstm_recurrence_fwd(
+                xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd")[0], hs, TOL[dtype])
         torch.cuda.synchronize()
         t["max_abs_err"] = {n: e for n, (e, _) in res.items()}
         if not all(ok for _, ok in res.values()):
@@ -2696,24 +2875,37 @@ def recurrence_past_288(dev) -> dict:
                 if k[0].endswith("_wide_mma") and k[2] == H}
             add_bounds(t, recurrence_work(T, H, G, size), dtype)
         else:
-            t["fwd_ms"] = time_ms(fwd, 3)
-            # new, old, old, new: the f32 tensor-core sweep and the
-            # global-weight instance by name, in one run on one card
+            # new, old, old, new: the f32 tensor-core forward and sweep and the
+            # global-weight instances by name, in one run on one card
+            t["fwd_ms"], t["fwd_ms_again"], t["fwd_global_weights_ms"] = in_turns(
+                fwd, lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype,
+                                                   kernel="lstm_recurrence_fwd"), 3)
             t["bwd_ms"], t["bwd_ms_again"], t["bwd_global_weights_ms"] = in_turns(
                 bwd, lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), 3)
+            # the forward at each row tile its instance is built for
+            keep = L.REC_WIDE_F32_FWD_ROWS
+            try:
+                for R in keep[1]:
+                    L.REC_WIDE_F32_FWD_ROWS = {1: (R,), 2: keep[2]}
+                    t[f"fwd_rows_{R}_ms"] = time_ms(fwd, 3)
+            finally:
+                L.REC_WIDE_F32_FWD_ROWS = keep
             t["bwd_global_weights_max_abs_err"] = t["max_abs_err"].pop("dxg_global_weights")
-            name = "lstm_recurrence_bwd_wide_f32"
-            t["plans"] = {"bwd": dict(zip(("rows", "tiles", "smem"), L.wide_plan(
-                "rec_bwd_f32", B_TRAIN, G, H, L._max_clusters(name, dtype, H, dev), D_REC)))}
+            t["fwd_global_weights_max_abs_err"] = t["max_abs_err"].pop("hs_global_weights")
+            names = {kind: f"lstm_recurrence_{kind}_wide_f32" for kind in ("fwd", "bwd")}
+            t["plans"] = {kind: dict(zip(("rows", "tiles", "smem"), L.wide_plan(
+                f"rec_{kind}_f32", B_TRAIN, G, H, L._max_clusters(name, dtype, H, dev), D_REC)))
+                for kind, name in names.items()}
             t["max_active_clusters"] = {
                 f"{k[0]} H={k[2]} rows={k[3]}": v for k, v in L._cluster_counts.items()
-                if k[0] == name and k[2] == H}
+                if k[0] in names.values() and k[2] == H}
             work = recurrence_work(T, H, G, size)
-            # the sweep at 495/3 TFLOP/s (three tf32 passes); the forward and
-            # wgrad, and the sweep's global-weight instance, at 67 (CUDA cores)
-            add_bounds(t, work, torch.float32, {"bwd": kernel_peak(dtype, name)})
-            t["bwd_cuda_core_bound_ms"], t["bwd_cuda_core_bound_by"] = bound(
-                [(*work["bwd"], PEAK_F32_FLOPS)])
+            # the forward and the sweep at 495/3 TFLOP/s (three tf32 passes);
+            # wgrad, and the global-weight instances, at 67 (CUDA cores)
+            add_bounds(t, work, torch.float32, {k: kernel_peak(dtype, n) for k, n in names.items()})
+            for kind in names:
+                t[f"{kind}_cuda_core_bound_ms"], t[f"{kind}_cuda_core_bound_by"] = bound(
+                    [(*work[kind], PEAK_F32_FLOPS)])
         del xg, valid, w, dhs, ref, hs, cs, args, dxg
         t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(T, H, dev, dtype=dtype)
         h512[t["dtype"]] = t
@@ -2897,33 +3089,32 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                                 ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
                                  "lstm_recurrence_wgrad_mma") + layer_kernels,
                                 embedding_size=128, rnn_num_layers=1)
-        # a one-layer f32 model at embedding 320 at the train shape: the
-        # forward on its global-weight instance, the f32 tensor-core sweep
-        f32_320 = f32_steps(dev, batches,
-                            ("lstm_recurrence_fwd", "lstm_recurrence_bwd_wide_f32",
-                             "lstm_recurrence_wgrad"),
-                            ("lstm_recurrence_bwd", "lstm_recurrence_bwd_mma",
-                             "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma",
-                             "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
-                            + layer_kernels, embedding_size=320, rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
-        # a one-layer model at embedding 320: in f32 the forward past 288 on
-        # its global-weight instance and the f32 tensor-core sweep, never the
-        # cluster sweep; in bf16 the tensor-core kernels past 288 and never
-        # the global-weight instance
-        old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
-        wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
-        grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
-            dev, dtype=dtype, eval_step=True, expect=expect, never=never, embedding_size=320,
-            rnn_num_layers=1)
-            for dtype, expect, never in (
-                (torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd_wide_f32",
-                                 "lstm_recurrence_wgrad"), wide + ("lstm_recurrence_bwd",)),
-                (torch.bfloat16, wide + ("lstm_recurrence_wgrad_mma",), old))}
     finally:
         lstm.DEFAULT_BACKEND = "auto"
+    # past 288 units the default backend takes the op by itself: a one-layer
+    # f32 model at embedding 320 at the train shape (2 steps and an eval
+    # step, timed) on the f32 tensor-core forward and sweep; its gradients
+    # and those of the bf16 model against the CPU's: in f32 the forward and
+    # sweep in three tf32 passes, never the global-weight instances; in bf16
+    # the tensor-core kernels past 288 and never the global-weight instance;
+    # no layer kernel in either
+    old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
+    wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
+    wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
+    f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
+                        old + wide + ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
+                                      "lstm_recurrence_wgrad_mma") + layer_kernels,
+                        eval_step=True, embedding_size=320, rnn_num_layers=1)
+    grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
+        dev, dtype=dtype, eval_step=True, expect=expect, never=never, embedding_size=320,
+        rnn_num_layers=1)
+        for dtype, expect, never in (
+            (torch.float32, wide_f32 + ("lstm_recurrence_wgrad",), wide + old + layer_kernels),
+            (torch.bfloat16, wide + ("lstm_recurrence_wgrad_mma",),
+             old + wide_f32 + layer_kernels))}
     median = float(np.median(step_ms))
     out = {"phase": "recurrence_path", "backend": "recurrence", "pairs": PAIRS_TRAIN,
            "T": T_TRAIN, "dtype": "bfloat16", "optimizer": "ranger21_xx", "dropout": 0.3,
@@ -3245,10 +3436,11 @@ def main() -> int:
         kernels.append(entry)
     # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
     # take; its main path is layer 0 (E = H = 72) of the bf16 two-layer model
-    # at embedding 72 (phase widths' gradient and eval step). Timed by name
-    # on layer 0 at embedding 80 (its main path until the tensor-core sweep
-    # took E = H = 80), in turns with bilstm_bwd_mma, and in f32 there
-    e = e80["bfloat16"]["bwd"]
+    # at embedding 72 (phase widths' gradient and eval step), timed there.
+    # Also by name on layer 0 at embedding 80 (its main path until the
+    # tensor-core sweep took E = H = 80), in turns with bilstm_bwd_mma, and in
+    # f32 there
+    e, b72 = e80["bfloat16"]["bwd"], widths["bwd_72"]
     g72 = next(c for c in widths["grad_checks"]
                if c["backend"] == "layer" and c.get("embedding_size") == 72)
     kernels.append({
@@ -3257,23 +3449,28 @@ def main() -> int:
         "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
         "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
         "launches": g72["launches"].get("bilstm_bwd", 0),
-        "max_abs_err": max(v for n, v in e["max_abs_err"].items() if n.startswith("cuda_core_")),
-        "ms": e["cuda_core_ms"],
-        "plain_ms": e["plain_ms"],
-        "bound_ms": e["bwd_bound_ms"],
-        "bound_by": e["bwd_bound_by"],
-        "library_ms": e["library_ms"],
-        "cuda_core_bound_ms": e["cuda_core_bound_ms"],
+        "max_abs_err": b72["max_abs_err"],
+        "ms": b72["ms"],
+        "plain_ms": b72["plain_ms"],
+        "bound_ms": b72["bound_ms"],
+        "bound_by": b72["bound_by"],
+        "library_ms": b72["library_ms"],
+        "cuda_core_bound_ms": b72["cuda_core_bound_ms"],
+        "h80_ms": e["cuda_core_ms"], "h80_bound_ms": e["bwd_bound_ms"],
+        "h80_cuda_core_bound_ms": e["cuda_core_bound_ms"], "h80_library_ms": e["library_ms"],
+        "h80_max_abs_err": max(v for n, v in e["max_abs_err"].items()
+                               if n.startswith("cuda_core_")),
         "float32_ms": e80["float32"]["bwd"]["cuda_core_ms"],
         "float32_max_abs_err": max(v for n, v in e80["float32"]["bwd"]["max_abs_err"].items()
                                    if n.startswith("cuda_core_")),
-        "work": "launches: the bf16 gradient and eval step of the two-layer model at embedding "
-                "72 (layer 0, E=H=72); ms: by name on layer 0 of the bf16 two-layer model at "
-                "embedding 80 (E=H=80, 5 groups, two dy streams a direction), 400 rows, "
-                "T=1500, in turns with bilstm_bwd_mma (new, old, old, new), bound at the bf16 "
-                "rate (cuda_core_bound_ms at 67 TFLOP/s, its f32 FMAs); float32_*: the same by "
-                "name on the f32 layer's operands, in turns with bilstm_bwd_f32_onestage; "
-                "library: cuDNN one-layer nn.LSTM backward (input) in bf16, TF32 off",
+        "work": "layer 0 of the bf16 two-layer model at embedding 72 (E=H=72, 5 groups, two dy "
+                "streams a direction), 400 rows, T=1500; launches: that model's gradient and "
+                "eval step; bound at the bf16 rate (cuda_core_bound_ms at 67 TFLOP/s, its f32 "
+                "FMAs); library: cuDNN one-layer nn.LSTM backward (input) in bf16 at E=H=72, "
+                "TF32 off; h80_*: by name on layer 0 of the bf16 two-layer model at embedding "
+                "80 (E=H=80), in turns with bilstm_bwd_mma (new, old, old, new); float32_*: the "
+                "same by name on the f32 layer's operands, in turns with "
+                "bilstm_bwd_f32_onestage",
     })
     kernels.append({
         "name": "bilstm_bwd_mma",
@@ -3369,10 +3566,14 @@ def main() -> int:
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    # the CUDA-core gates, wide forward and lite sweep keep f32, whose main
-    # path is the f32 gradient step at the scaled widths and the eval step
-    # after it (train_scaled's grad_check)
+    # the CUDA-core gates and wide forward keep f32, whose main path is the
+    # f32 gradient step at the scaled widths and the eval step after it
+    # (train_scaled's grad_check); the CUDA-core lite sweep keeps f32 at 96,
+    # 160, 192 and 224 (the stacked layer of the f32 model at embedding 80,
+    # its main path), timed by name at the scaled widths in turns with the
+    # f32 tensor-core sweep
     f32_scaled = scaled["grad_check"]["launches"]
+    lite32 = widths["lite_f32"]
     for key, name, source, replaces in (
         ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285"),
         ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
@@ -3400,6 +3601,22 @@ def main() -> int:
         entry["work"] += ("; launches: the f32 gradient step at the scaled widths and the eval "
                           "step after it; bf16_cuda_core_ms: this kernel on the bf16 operands "
                           "of the tensor-core one's row, by name")
+        if key == "lite":
+            entry.update({
+                "launches": train["steps_embedding_80"]["float32"]["launches"][name],
+                "max_abs_err": max(r["max_abs_err"]["cuda_core_dgates"] for r in lite32.values()),
+                "ms": w32["lite_cuda_core_ms"], "bound_ms": w32["lite_cuda_core_bound_ms"],
+                "bound_by": w32["lite_cuda_core_bound_by"],
+                "tensor_core_ms": w32["lite_ms"],
+                **{f"h{h}_f32_ms": r["cuda_core_ms"] for h, r in
+                   ((k[1:], v) for k, v in lite32.items())},
+            })
+            entry["work"] = entry["work"].replace(
+                "launches: the f32 gradient step at the scaled widths and the eval step after it",
+                "ms: by name at the scaled widths in turns with bilstm_bwd_lite_f32 "
+                "(tensor_core_ms), bound at 67 TFLOP/s; launches: the f32 steps of the two-layer "
+                "model at embedding 80 (its stacked layer at H=96); max_abs_err: by name at "
+                "288, 256 and 128 (hN_f32_ms: by name on those layers, in turns)")
         if key != "gates":
             # the 288-thread instance: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"][key]
@@ -3510,6 +3727,54 @@ def main() -> int:
                               "288-thread instance by name (new, old, old, new), launches in "
                               "that model's steps, library: cuDNN one-layer bf16 at E=H=272")
         kernels.append(entry)
+    # the f32 tensor-core lite sweep: its main path is the f32 gradient step at
+    # the scaled widths (H = 256) and the f32 steps at embedding 100 (128)
+    # and 272 (288)
+    name = "bilstm_bwd_lite_f32"
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
+        "launches": f32_scaled.get(name, 0),
+        "max_abs_err": max([r["max_abs_err"]["dgates"] for r in lite32.values()]
+                           + [v for c in wk["checks"] if c["dtype"] == "float32"
+                              and c["route"] == "wide"
+                              for n, v in c["max_abs_err"].items() if n == "dgates"]),
+        "scaled_err": max(r["scaled_err"] for r in lite32.values()),
+        "ms": w32["lite_ms"],
+        "ms_again": w32["lite_ms_again"],
+        "plain_ms": w32["lite_plain_ms"],
+        "bound_ms": w32["lite_bound_ms"],
+        "bound_by": w32["lite_bound_by"],
+        "library_ms": w32["lite_library_ms"],
+        "cuda_core_ms": w32["lite_cuda_core_ms"],
+        "cuda_core_bound_ms": w32["lite_cuda_core_bound_ms"],
+        "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, 400 "
+                "rows, T=1500, H=256; launches: the f32 gradient step at the scaled widths and "
+                "the eval step after it; bound at 495/3 TFLOP/s (three tf32 passes; "
+                "cuda_core_bound_ms at 67); cuda_core_ms: bilstm_bwd_lite.cu by name on the "
+                "same operands (new, old, old, new); library: cuDNN backward (input) of one "
+                "bidirectional nn.LSTM layer in f32, TF32 off; hN_*: layer 0 of the f32 "
+                "two-layer models at embedding 272 (run at H=288) and 100 (at H=128, parts of "
+                "112) and of the scaled configuration (256), 400 rows in 5 groups, two dy "
+                "streams, in turns with bilstm_bwd_lite.cu by name, bound at the padded H "
+                "(true_bound_ms at the true H), rows_R_ms at each row tile, library: cuDNN "
+                "one-layer f32 at the true widths; hN_launches in those models' steps",
+    }
+    models = widths["models"]
+    for key, r in lite32.items():
+        entry.update({f"{key}_{k}": r[k] for k in (
+            "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+            "cuda_core_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters",
+            "scaled_err")})
+        entry[f"{key}_rows_ms"] = {k: v for k, v in r.items() if k.startswith("rows_")}
+        entry[f"{key}_max_abs_err"] = r["max_abs_err"]["dgates"]
+    entry["h288_launches"] = models["embedding_272_float32"]["launches"][name]
+    entry["h128_launches"] = models["embedding_100_float32"]["launches"][name]
+    if min(entry["launches"], entry["h288_launches"], entry["h128_launches"]) <= 0:
+        raise AssertionError("an f32 main path never ran the tensor-core lite sweep")
+    kernels.append(entry)
     # the recurrence op: both layers of one recurrence-backend step (layer 0
     # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
@@ -3546,8 +3811,8 @@ def main() -> int:
                     "do the input projection (cuBLAS for wgrad)",
         }
         past = rk["past_288"]
-        if key != "bwd":
-            # past 288 (the global-weight instance): one call at H = 512, f32
+        if key == "wgrad":
+            # past 288: one call at H = 512, f32
             h512 = past["h512"]["float32"]
             entry.update({f"h512_{k}": h512[f"{key}_{k}"]
                           for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
@@ -3558,13 +3823,26 @@ def main() -> int:
             entry["work"] += ("; h512_*: one call at H=512 (400 rows, 5 groups, T=300), f32, "
                               "library: cuDNN one bidirectional nn.LSTM layer at that width; "
                               "h512_max_abs_err over H=288, 512 and 1024")
-            if key == "fwd":
-                entry["h320_launches"] = rpath["grad_check_embedding_320"]["float32"][
-                    "launches"][name]
-                entry["h512_bf16_ms"] = past["h512"]["bfloat16"]["fwd_global_weights_ms"]
-                entry["work"] += ("; h320_launches: the f32 model at embedding 320, one layer "
-                                  "(in bf16 the tensor-core forward takes it); h512_bf16_ms: "
-                                  "the global-weight instance by name in bf16")
+        if key == "fwd":
+            # its global-weight instance past 288, by name: one call at H = 512
+            h512 = past["h512"]["float32"]
+            entry.update({"h512_ms": h512["fwd_global_weights_ms"],
+                          "h512_plain_ms": h512["fwd_plain_ms"],
+                          "h512_bound_ms": h512["fwd_cuda_core_bound_ms"],
+                          "h512_bound_by": h512["fwd_cuda_core_bound_by"],
+                          "h512_library_ms": h512["fwd_library_ms"],
+                          "h512_max_abs_err": max(
+                              [c["global_weights_max_abs_err"]["hs"]
+                               for c in past["wide_f32_checks"]
+                               if "hs" in c.get("global_weights_max_abs_err", {})]
+                              + [h512["fwd_global_weights_max_abs_err"]]),
+                          "h512_bf16_ms": past["h512"]["bfloat16"]["fwd_global_weights_ms"]})
+            entry["work"] += ("; h512_*: its global-weight instance by name, one call at "
+                              "H=512 (400 rows, 5 groups, T=300), f32, in turns with "
+                              "lstm_recurrence_fwd_wide_f32, bound at 67 TFLOP/s, library: "
+                              "cuDNN one bidirectional nn.LSTM layer at that width; "
+                              "h512_max_abs_err over H=320, 512 and 1024 by name; "
+                              "h512_bf16_ms: the same by name in bf16")
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
                           "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
@@ -3720,7 +3998,43 @@ def main() -> int:
                 "masks from lengths and with holes (tolerance 1e-4 x max(1, max|ref|)); "
                 "launches: the f32 model at embedding 320, one layer",
     })
-    if len(kernels) != 30 or any(k["launches"] <= 0 for k in kernels):
+    # the f32 tensor-core forward past 288: its main path is the f32 one-layer
+    # model at embedding 320 on the default backend; timed at H = 512 (400
+    # rows in 5 groups, T = 300), the global-weight instance by name in turns
+    name = "lstm_recurrence_fwd_wide_f32"
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:116",
+        "launches": rpath["grad_check_embedding_320"]["float32"]["launches"][name],
+        "max_abs_err": max(v for c in past["wide_f32_checks"]
+                           for v in c["fwd_max_abs_err"].values()),
+        "scaled_err": max(c["fwd_scaled_err"] for c in past["wide_f32_checks"]),
+        "ms": h512f["fwd_ms"],
+        "ms_again": h512f["fwd_ms_again"],
+        "plain_ms": h512f["fwd_plain_ms"],
+        "bound_ms": h512f["fwd_bound_ms"],
+        "bound_by": h512f["fwd_bound_by"],
+        "cuda_core_bound_ms": h512f["fwd_cuda_core_bound_ms"],
+        "library_ms": h512f["fwd_library_ms"],
+        "global_weights_ms": h512f["fwd_global_weights_ms"],
+        "rows": h512f["plans"]["fwd"]["rows"],
+        "rows_ms": {k: v for k, v in h512f.items() if k.startswith("fwd_rows_")},
+        "max_active_clusters": h512f["max_active_clusters"],
+        "steps_launches": rpath["float32_steps_embedding_320"]["launches"][name],
+        "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full lengths, f32 "
+                "compute dtype; bound at 495/3 TFLOP/s (three tf32 passes; cuda_core_bound_ms "
+                "at 67); global_weights_ms: the global-weight instance of "
+                "lstm_recurrence_fwd.cu by name on the same operands (new, old, old, new); "
+                "rows_ms: at each row tile; library: cuDNN training forward of one "
+                "bidirectional nn.LSTM layer in f32 at that width, TF32 off, which also does "
+                "the input projection; max_abs_err over H=320, 512 and 1024, masks from lengths "
+                "and with holes, and 400 rows at 320 and 512 (tolerance 1e-4 x max(1, "
+                "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
+                "default backend (steps_launches: its timed steps)",
+    })
+    if len(kernels) != 32 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

@@ -34,7 +34,10 @@
 // big.small + small.big (split_tf32, bilstm_mma.cuh): about 20 bits.
 //
 // Design (lstm_recurrence_wide_mma.cuh has the split; the bf16 sweep
-// lstm_recurrence_bwd_wide_mma.cu the schedule this kernel keeps):
+// lstm_recurrence_bwd_wide_mma.cu the schedule this kernel keeps;
+// lstm_recurrence_wide_f32.cuh the fragment loads, the three-pass products
+// and the dh transpose, shared with the f32 forward past 288 and the f32
+// lite sweep):
 //   * a cluster of 8 blocks per (row tile, direction), 8 warps a block,
 //     block k owning groups [k n / 8, (k + 1) n / 8) of the n = H / 8 unit
 //     groups and their gate columns (5 or 6 a block at H = 352);
@@ -84,7 +87,7 @@
 
 #include <cooperative_groups.h>
 
-#include "lstm_recurrence_wide_mma.cuh"
+#include "lstm_recurrence_wide_f32.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -92,10 +95,6 @@ namespace {
 
 using namespace bilstm;
 using namespace bilstm::recwide;
-
-constexpr int kFPad = 16;  // f32 elements of padding on the h and dgates tile rows (16 mod 32)
-// k16 chunks of gate-product weight fragments in flight in registers
-constexpr int kGateChunks = 2;
 
 struct Args {
   const float* xg;       // (T, D, B, 4H)
@@ -110,9 +109,6 @@ struct Args {
   int T, B, H, G;
 };
 
-// Row stride (f32) of the partial dh buffer: at least BR and 8 mod 16.
-__host__ __device__ constexpr int part_stride(int BR) { return BR + ((8 - BR) % 16 + 16) % 16; }
-
 // Dynamic shared memory of the <BR> instance at H (bytes), in layout order:
 // the f32 h_prev tile, the block's f32 dgates tile (32 gate columns a
 // group) and the f32 partial dh of all H units.
@@ -120,86 +116,9 @@ __host__ __device__ constexpr int smem_h(int H, int BR) { return BR * (H + kFPad
 __host__ __device__ constexpr int smem_dg(int H, int BR) {
   return BR * (32 * max_block_groups(H) + kFPad) * 4;
 }
-__host__ __device__ constexpr int smem_part(int H, int BR) { return H * part_stride(BR) * 4; }
+__host__ __device__ constexpr int smem_part(int H, int BR) { return H * part_stride_f32(BR) * 4; }
 __host__ __device__ constexpr int smem_bytes(int H, int BR) {
   return smem_h(H, BR) + smem_dg(H, BR) + smem_part(H, BR);
-}
-
-// An f32 fragment (four values as bits) split into its big and small tf32 parts.
-__device__ __forceinline__ void split4(const uint4& r, uint32_t (&big)[4], uint32_t (&small)[4]) {
-  split_tf32(__uint_as_float(r.x), big[0], small[0]);
-  split_tf32(__uint_as_float(r.y), big[1], small[1]);
-  split_tf32(__uint_as_float(r.z), big[2], small[2]);
-  split_tf32(__uint_as_float(r.w), big[3], small[3]);
-}
-
-// c += a . b in three tf32 passes: small.big, big.small, big.big.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                     uint32_t b0, uint32_t b1, uint32_t s0, uint32_t s1) {
-  mma_tf32(c, as, b0, b1);
-  mma_tf32(c, ab, s0, s1);
-  mma_tf32(c, ab, b0, b1);
-}
-
-// The gate product's fragments of k16 chunk c for the warp's groups:
-// r[j][kh][mt] (k8 step 2c + kh, m16 half mt; a k8 step is 64 lanes' worth
-// further, an m16 half 32).
-template <int MUG>
-__device__ __forceinline__ void gate_load(uint4 (&r)[MUG][2][2], const uint4* (&wa)[MUG], int nug,
-                                          int c, uint64_t pol) {
-#pragma unroll
-  for (int j = 0; j < MUG; ++j) {
-    if (j >= nug) continue;
-    const uint4* p = wa[j] + (size_t)c * 128;
-#pragma unroll
-    for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) r[j][kh][mt] = ldg_weight(p + kh * 64 + mt * 32, pol);
-  }
-}
-
-// acc[j][nt][mt] += W(group j of the warp, m16 half mt) . h^T(n8 tile nt)
-// over K = H (K16 k16 chunks), three tf32 passes: A from the weight copy
-// through the P slots of ra (filled with chunks 0 .. P-1 by the caller;
-// each refilled P chunks ahead after its use), B from the f32 h_prev tile
-// (hb_lane: the lane's row g, inputs 4t .. 4t + 3 of chunk 0; rows KS apart).
-template <int MUG, int NT, int P>
-__device__ __forceinline__ void gate_mma(float (&acc)[MUG][NT][2][4], uint4 (&ra)[P][MUG][2][2],
-                                         const uint4* (&wa)[MUG], int nug, const float* hb_lane,
-                                         int KS, int K16, uint64_t pol) {
-#pragma unroll 1
-  for (int c0 = 0; c0 < K16; c0 += P) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      const int c = c0 + i;
-      if (c >= K16) continue;
-      uint32_t bb[NT][4], bs[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float4 v = *reinterpret_cast<const float4*>(hb_lane + 8 * nt * KS + 16 * c);
-        split_tf32(v.x, bb[nt][0], bs[nt][0]);
-        split_tf32(v.y, bb[nt][1], bs[nt][1]);
-        split_tf32(v.z, bb[nt][2], bs[nt][2]);
-        split_tf32(v.w, bb[nt][3], bs[nt][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < MUG; ++j) {
-        if (j >= nug) continue;
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            uint32_t ab[4], as[4];
-            split4(ra[i][j][kh][mt], ab, as);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              mma3(acc[j][nt][mt], ab, as, bb[nt][2 * kh], bb[nt][2 * kh + 1], bs[nt][2 * kh],
-                   bs[nt][2 * kh + 1]);
-          }
-      }
-      if (c + P < K16) gate_load<MUG>(ra[i], wa, nug, c + P, pol);
-    }
-  }
 }
 
 // grid (tiles * kWideCluster, D) in clusters of kWideCluster, kThreads threads.
@@ -209,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int NT = BR / 8;
   constexpr int P = kGateChunks;
   constexpr int MTW = 4 * MUG;  // m16 tiles of units a warp owns in the dh product
-  constexpr int PS = part_stride(BR);
+  constexpr int PS = part_stride_f32(BR);
   static_assert(BR % 8 == 0 && MUG >= 1 && MUG <= kMaxGroups, "shape");
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -321,11 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint4 rf[2][2][2];  // [slot][kh][mt]
   auto dh_load = [&](uint4 (&r)[2][2], int it) {
     const int j = it / UGk, ug = it - j * UGk;
-    const uint4* p = wdg + ((size_t)(glo + ug) * (H / 8) + 2 * (warp + kWarps * j)) * 64;
-#pragma unroll
-    for (int kh = 0; kh < 2; ++kh)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) r[kh][mt] = ldg_weight(p + kh * 64 + mt * 32, pol);
+    chunk_load(r, wdg + (size_t)(glo + ug) * (H / 8) * 64, warp + kWarps * j, pol);
   };
   auto dh_prefetch = [&]() {
     if (nit > 0) dh_load(rf[0], 0);
@@ -340,21 +255,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         bv[nt] = *reinterpret_cast<const float4*>(dg_lane + 8 * nt * DS + 32 * ug + 16 * mt);
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
-        uint32_t at[4];
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh) {
-          // the 8x8 block (gate rows 16 mt + 8 hi .., inputs of k8 step 2m + kh):
-          // this lane holds row g, columns 2t and 2t + 1
-          const uint32_t x0 = hi ? r[kh][mt].y : r[kh][mt].x;
-          const uint32_t x1 = hi ? r[kh][mt].w : r[kh][mt].z;
-          const uint32_t tl = movmatrix_trans(__byte_perm(x0, x1, 0x5410));
-          const uint32_t th = movmatrix_trans(__byte_perm(x0, x1, 0x7632));
-          at[kh] = __byte_perm(tl, th, 0x5410);
-          at[kh + 2] = __byte_perm(tl, th, 0x7632);
-        }
         uint32_t ab[4], as[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(at[q]), ab[q], as[q]);
+        dh_fragment(r[0][mt], r[1][mt], hi, ab, as);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           uint32_t b0, b1, s0, s1;
@@ -401,14 +303,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_step(T - 1);
   if (T > 1) {
     fetch_h(T - 1);
-    if (nug > 0) {
-#pragma unroll
-      for (int i = 0; i < P; ++i)
-        if (i < H / 16) gate_load<MUG>(ra[i], wa, nug, i, pol);
-    }
+    gate_prefetch_f32<MUG, P>(ra, wa, nug, H / 16, pol);
     cp_async_wait<0>();
     __syncthreads();
-    if (nug > 0) gate_mma<MUG, NT, P>(acc, ra, wa, nug, hb_lane, KS, H / 16, pol);
+    if (nug > 0) gate_mma_f32<MUG, NT, P>(acc, ra, wa, nug, hb_lane, KS, H / 16, pol);
   }
   const uint32_t part_u32 = smem_u32(part);
 
@@ -490,14 +388,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     load_step(s - 1);
     if (s > 1) {  // step 0's gates are its xg alone
-      if (nug > 0) {
-#pragma unroll
-        for (int i = 0; i < P; ++i)
-          if (i < H / 16) gate_load<MUG>(ra[i], wa, nug, i, pol);
-      }
+      gate_prefetch_f32<MUG, P>(ra, wa, nug, H / 16, pol);
       cp_async_wait<0>();
       __syncthreads();  // hb holds hs[s - 2]
-      if (nug > 0) gate_mma<MUG, NT, P>(acc, ra, wa, nug, hb_lane, KS, H / 16, pol);
+      if (nug > 0) gate_mma_f32<MUG, NT, P>(acc, ra, wa, nug, hb_lane, KS, H / 16, pol);
     }
   }
   // every block is done reading this block's partials before it exits

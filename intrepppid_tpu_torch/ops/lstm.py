@@ -20,7 +20,9 @@ the card.
   its gate cotangent stream; ``bidir_layer_bwd`` runs both.
 
 ``bilstm`` runs the stack on one of two backends (``DEFAULT_BACKEND``, or
-per call). ``"layer"``: under autograd through ``ops/lstm_stack.py`` (one
+per call; ``"auto"`` takes ``"layer"`` up to 288 units a layer and
+``"recurrence"`` past that, ``resolve_backend``). ``"layer"``: under
+autograd through ``ops/lstm_stack.py`` (one
 ``torch.autograd.Function`` over the whole stack, in the role of
 ``pallas_bilstm_stack``), otherwise layer by layer through
 ``lstm_cuda.layer_fwd``. ``"recurrence"``: per layer the hoisted input
@@ -60,20 +62,30 @@ import torch
 LayerParams = Dict[str, torch.Tensor]
 Streams = Tuple[torch.Tensor, ...]
 
-# The stack's backend when a call passes "auto": "layer" (the layer kernels;
-# "auto" resolves to it) or "recurrence" (the time-major recurrence op).
-# Override per call or through this module global, as the JAX package's
+# The stack's backend when a call passes "auto": "auto" (by width: the layer
+# kernels, or the time-major recurrence op where a layer is wider than the
+# layer route takes, ``resolve_backend``), "layer" or "recurrence". Override
+# per call or through this module global, as the JAX package's
 # ``ops/lstm.py:DEFAULT_BACKEND``; the models call ``bilstm`` without a
 # backend, so the global selects their path.
 DEFAULT_BACKEND = "auto"
 BACKENDS = ("layer", "recurrence")
 
 
-def resolve_backend(backend: str) -> str:
+def resolve_backend(backend: str, H: Optional[int] = None) -> str:
+    """The backend a stack runs on: ``backend``, or for ``"auto"`` the
+    module's ``DEFAULT_BACKEND``; "auto" there picks by the stack's widest
+    layer ``H``: ``"recurrence"`` past ``lstm_cuda.WIDE_MAX_THREADS`` (288,
+    the widest layer the layer route takes, padded or not), where the JAX
+    package's ``"auto"`` runs its scan, else ``"layer"`` (also when no width
+    is given). A choice by shape, made before any launch. ``"layer"`` named
+    explicitly still refuses a layer past 288."""
+    from intrepppid_tpu_torch.ops.lstm_cuda import WIDE_MAX_THREADS
+
     if backend == "auto":
         backend = DEFAULT_BACKEND
     if backend == "auto":
-        backend = "layer"
+        backend = "recurrence" if H is not None and H > WIDE_MAX_THREADS else "layer"
     if backend not in BACKENDS:
         raise ValueError(f"bilstm backend must be \"auto\" or one of {BACKENDS}, got {backend!r}")
     return backend
@@ -443,7 +455,9 @@ def bilstm(
         torch order ``[l0_fwd, l0_bwd, l1_fwd, l1_bwd, ...]``.
 
     :param backend: ``"layer"``, ``"recurrence"`` or ``"auto"`` (the module
-        global ``DEFAULT_BACKEND``, which defaults to the layer kernels).
+        global ``DEFAULT_BACKEND``, which defaults to "auto": the layer
+        kernels up to 288 units a layer, the recurrence op past that;
+        ``resolve_backend``).
 
     On the layer backend, with grad mode on and any operand requiring grad,
     the stack runs as one ``BiLSTMStack`` autograd unit
@@ -460,7 +474,8 @@ def bilstm(
         max_len = T
     lengths = torch.as_tensor(max_len, dtype=torch.int32, device=x.device)
     lengths = lengths.broadcast_to((B,)).contiguous()
-    if resolve_backend(backend) == "recurrence":
+    widest = max((lp["w_hh"].shape[-1] for lp in layers), default=None)
+    if resolve_backend(backend, widest) == "recurrence":
         y, hns, cns = x, [], []
         for lp in layers:
             y, hn, cn = bidir_layer_recurrence(lp, y, lengths, compute_dtype)

@@ -60,13 +60,16 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
-    out), by one of two kernels (``lite_kernel``):
+    out), by one of three kernels (``lite_kernel``):
     ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
     H = 128, 256 and 288: the products on the tensor cores; at 288 an
     instance whose cluster splits the unit groups 4 / 5 a block),
-    ``bilstm_bwd_lite`` itself launches ``csrc/bilstm_bwd_lite.cu`` for the
-    rest (f32, and the bf16 widths the tensor-core sweep does not take; CUDA
-    cores). Plain twin of both: ``ops/lstm.py:bidir_layer_sweep_lite``.
+    ``bilstm_bwd_lite_f32`` launches ``csrc/bilstm_bwd_lite_f32.cu`` (f32 at
+    those widths: three tf32 passes on the f32 fragment copy of ``W_hh^T``
+    read from L2, ``recurrence_f32_weights``), ``bilstm_bwd_lite`` itself
+    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (96, 160, 192 and 224;
+    CUDA cores). Plain twin of all three:
+    ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
   three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
@@ -83,18 +86,21 @@ Beside the layer kernels, the time-major recurrence op
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
 of its own: three on the wide route's cluster design at every width they
-take (past 288 the f32 forward, and the cluster sweep when asked for by
-name, read their weight slices from an L2-resident global copy,
-``recurrence_global_weights``), and five tensor-core ones:
+take (past 288 the forward and the sweep, reached there by name only,
+read their weight slices from an L2-resident global copy,
+``recurrence_global_weights``), and six tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
-  _fwd_pallas``, by one of two kernels (``recurrence_fwd_kernel``):
+  _fwd_pallas``, by one of three kernels (``recurrence_fwd_kernel``):
   ``lstm_recurrence_fwd_wide_mma`` launches
   ``csrc/lstm_recurrence_fwd_wide_mma.cu`` (bf16 past 288: 8-block
   clusters, the product on ``mma.sync`` from bf16 weight fragments read
-  from L2, ``recurrence_mma_weights``), ``lstm_recurrence_fwd`` itself
-  launches the cluster kernel ``csrc/lstm_recurrence_fwd.cu`` for the
-  rest. Plain twin of both: ``recurrence_fwd``.
+  from L2, ``recurrence_mma_weights``), ``lstm_recurrence_fwd_wide_f32``
+  launches ``csrc/lstm_recurrence_fwd_wide_f32.cu`` (f32 past 288: the same
+  design in three tf32 passes on the sweep's f32 fragment copy),
+  ``lstm_recurrence_fwd`` itself launches the cluster kernel
+  ``csrc/lstm_recurrence_fwd.cu`` for the rest (to 288). Plain twin of all
+  three: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
   _bwd_pallas`` (``dxg``), by one of five kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
@@ -188,8 +194,9 @@ SMEM_LIMIT = 232448
 # bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad, the uneven instance's
 # row tiles), bilstm_wgrad_f32.cu
 # (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
-# and lstm_recurrence_bwd_wide_f32.cu (kWideCluster, kThreads, their padding,
-# kMinH, kRecMaxH, the row tiles of each instance)
+# and lstm_recurrence_{fwd,bwd}_wide_f32.cu (kWideCluster, kThreads, their padding,
+# kMinH, kRecMaxH, the row tiles of each instance), bilstm_bwd_lite_f32.cu
+# (kWideCluster, kThreads, kFPad, its row tiles and widths)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -269,6 +276,16 @@ REC_WIDE_MMA_ROWS = {"fwd": {1: (16, 32, 48, 80), 2: (16, 32)},
 # (lstm_recurrence_bwd_wide_f32.cu): its row tiles by unit groups a warp,
 # and the f32 padding of its h and dgates tile rows
 REC_WIDE_F32_ROWS, REC_WIDE_F32_PAD = {1: (16, 32), 2: (16,)}, 16
+# the op's f32 tensor-core forward past WIDE_MAX_THREADS
+# (lstm_recurrence_fwd_wide_f32.cu): its row tiles by unit groups a warp
+# (its padding is the sweep's; no 16-row tile up to 512, whose two blocks
+# an SM lost to one 32-row block)
+REC_WIDE_F32_FWD_ROWS = {1: (32, 48), 2: (16,)}
+# the f32 tensor-core lite sweep (bilstm_bwd_lite_f32.cu, three tf32 passes
+# on the sweep's f32 fragment copy): the widths and row tiles it is
+# instantiated for (its threads are the bf16 one's, its padding the op
+# sweep's)
+LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 256, 288), (16, 32)
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
@@ -316,6 +333,10 @@ _SIGNATURES = {
                                      [_I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_wide_f32": ("lstm_recurrence_bwd_wide_f32",
                                      [_I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_fwd_wide_f32": ("lstm_recurrence_fwd_wide_f32",
+                                     [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "bilstm_bwd_lite_f32": ("bilstm_bwd_lite_f32", [_I] + [_P] * 11 + [_I] + [_P] * 3
+                            + [_I] * 6 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -419,11 +440,17 @@ _CONSTANTS = {
         (WIDE_CLUSTER, REC_WIDE_MMA_THREADS, MMA_PAD, REC_WIDE_MMA_MIN_H, REC_MAX_H,
          *(sum(1 << (r // 8) for r in REC_WIDE_MMA_ROWS[kind][n]) for n in (1, 2))))
        for kind in ("fwd", "bwd")},
-    "lstm_recurrence_bwd_wide_f32": (
-        tuple(f"lstm_recurrence_bwd_wide_f32_{c}"
+    **{f"lstm_recurrence_{kind}_wide_f32": (
+        tuple(f"lstm_recurrence_{kind}_wide_f32_{c}"
               for c in ("cluster", "threads", "pad", "min_h", "max_h", "rows1", "rows2")),
         (WIDE_CLUSTER, REC_WIDE_MMA_THREADS, REC_WIDE_F32_PAD, REC_WIDE_MMA_MIN_H, REC_MAX_H,
-         *(sum(1 << (r // 8) for r in REC_WIDE_F32_ROWS[n]) for n in (1, 2)))),
+         *(sum(1 << (r // 8) for r in rows[n]) for n in (1, 2))))
+       for kind, rows in (("fwd", REC_WIDE_F32_FWD_ROWS), ("bwd", REC_WIDE_F32_ROWS))},
+    "bilstm_bwd_lite_f32": (tuple(f"bilstm_bwd_lite_f32_{c}" for c in (
+        "cluster", "threads", "pad", "rows", "widths")),
+        (WIDE_CLUSTER, LITE_MMA_THREADS, REC_WIDE_F32_PAD,
+         sum(1 << (r // 8) for r in LITE_F32_ROWS),
+         sum(h << (10 * (len(LITE_F32_WIDTHS) - 1 - i)) for i, h in enumerate(LITE_F32_WIDTHS)))),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -984,22 +1011,38 @@ def lite_mma_check(H: int, dtype: torch.dtype) -> None:
             f"got {dtype}, H={H}")
 
 
+def lite_f32_check(H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or width the f32 tensor-core lite sweep
+    (``csrc/bilstm_bwd_lite_f32.cu``, three tf32 passes) does not take: it
+    takes float32 at H in ``LITE_F32_WIDTHS``, 128, 256 and 288, the widths
+    of the bf16 one."""
+    if dtype != torch.float32 or H not in LITE_F32_WIDTHS:
+        raise ValueError(
+            f"bilstm_bwd_lite_f32 kernel takes float32 with H in {list(LITE_F32_WIDTHS)}, "
+            f"got {dtype}, H={H}")
+
+
 def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
     ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
-    256 or 288), else ``"bilstm_bwd_lite"`` where ``wide_check`` passes (f32,
-    and the bf16 widths the tensor-core sweep does not take); ValueError
-    naming both refusals otherwise."""
-    try:
-        lite_mma_check(H, dtype)
-        return "bilstm_bwd_lite_mma"
-    except ValueError as mma:
+    256 or 288), ``"bilstm_bwd_lite_f32"`` where ``lite_f32_check`` passes
+    (f32 at those widths), else ``"bilstm_bwd_lite"`` where ``wide_check``
+    passes (the widths the tensor-core sweeps do not take: 96, 160, 192,
+    224 in either dtype); ValueError naming the refusals otherwise."""
+    refusals = []
+    for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
+                        ("bilstm_bwd_lite_f32", lite_f32_check)):
         try:
-            if dtype not in _DTYPE_CODES:
-                raise ValueError(f"bilstm_bwd_lite kernel takes float32 or bfloat16, got {dtype}")
-            wide_check(H)
-        except ValueError as cores:
-            raise ValueError(f"{cores}; {mma}") from None
+            check(H, dtype)
+            return name
+        except ValueError as e:
+            refusals.append(str(e))
+    try:
+        if dtype not in _DTYPE_CODES:
+            raise ValueError(f"bilstm_bwd_lite kernel takes float32 or bfloat16, got {dtype}")
+        wide_check(H)
+    except ValueError as cores:
+        raise ValueError("; ".join([str(cores)] + refusals)) from None
     return "bilstm_bwd_lite"
 
 
@@ -1056,14 +1099,22 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     ceil(H / 64) groups). ``kind`` "rec_fwd_mma" and
     "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
     (``recurrence_wide_mma_smem``); "rec_bwd_f32": its f32 tensor-core
-    sweep past 288 (``recurrence_wide_f32_smem``). At H = 288 "lite_mma"
-    is the instance for uneven groups: every per-block width sized for the
-    block of ceil(H / 64) groups, and ONE partial buffer; "lite_mma_uneven"
-    is that instance at any width (at 256, by name only)."""
+    sweep and forward past 288 (``recurrence_wide_f32_smem``). At H = 288
+    "lite_mma" is the instance for uneven groups: every per-block width
+    sized for the block of ceil(H / 64) groups, and ONE partial buffer;
+    "lite_mma_uneven" is that instance at any width (at 256, by name only).
+    ``kind`` "lite_f32" (the f32 tensor-core sweep, ``csrc/bilstm_bwd_lite_f32.cu``):
+    the op sweep's f32 h_prev tile, dgates tile and one partial buffer, its
+    weights read from L2 (the formula of ``recurrence_wide_f32_smem``)."""
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         return recurrence_wide_mma_smem(kind[4:7], H, rows)
-    if kind == "rec_bwd_f32":
-        return recurrence_wide_f32_smem(H, rows)
+    if kind in ("rec_fwd_f32", "rec_bwd_f32"):
+        return recurrence_wide_f32_smem(H, rows, kind[4:7])
+    if kind == "lite_f32":
+        lite_f32_check(H, torch.float32)
+        if rows not in LITE_F32_ROWS:
+            raise ValueError(f"bilstm_bwd_lite_f32: no instance for a row tile of {rows}")
+        return _wide_f32_sweep_smem(H, rows)
     U = H // WIDE_CLUSTER
     if kind == "fwd_mma":
         BR, pad = rows, MMA_PAD
@@ -1104,8 +1155,9 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     ``LITE_MMA_UNEVEN_ROWS`` there at H = 288 and for "lite_mma_uneven",
     ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
     H = 288), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
-    "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32") for the
-    tensor-core ones.
+    "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32",
+    ``REC_WIDE_F32_FWD_ROWS`` at H for "rec_fwd_f32", ``LITE_F32_ROWS`` for
+    "lite_f32") for the tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
@@ -1114,8 +1166,11 @@ def wide_plan(kind: str, B: int, G: int, H: int,
             }.get(kind, WIDE_ROWS)
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
-    if kind == "rec_bwd_f32":
-        rows = REC_WIDE_F32_ROWS[1 if H <= 512 else 2]
+    if kind in ("rec_fwd_f32", "rec_bwd_f32"):
+        rows = (REC_WIDE_F32_FWD_ROWS if kind == "rec_fwd_f32"
+                else REC_WIDE_F32_ROWS)[1 if H <= 512 else 2]
+    if kind == "lite_f32":
+        rows = LITE_F32_ROWS
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
@@ -1140,12 +1195,14 @@ _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + 
                 "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
-                "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1]}
+                "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
+                "lstm_recurrence_fwd_wide_f32": [None] * 7 + [1],
+                "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
     # the tensor-core kernels' C entries take no dtype code (one dtype each)
-    lead = [] if name.endswith(("_mma", "_wide_f32")) else [_DTYPE_CODES[dtype]]
+    lead = [] if name.endswith(("_mma", "_f32")) else [_DTYPE_CODES[dtype]]
 
     def count(R: int, smem: int) -> int:
         key = (name, dtype, H, R, smem, dev.index)
@@ -2195,20 +2252,24 @@ def bilstm_bwd_lite(
     (2, T, B, 4H)`` f32.
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
-    width and dtype: the tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128, 256 and 288; its ``.launches`` then counts it), or
+    width and dtype: a tensor-core one through :func:`bilstm_bwd_lite_mma`
+    (bf16 at H = 128, 256 and 288) or :func:`bilstm_bwd_lite_f32` (f32
+    there; their ``.launches`` then count them), or
     ``csrc/bilstm_bwd_lite.cu`` here. ``kernel="bilstm_bwd_lite"`` asks for
-    the latter by name (to time it beside the other)."""
+    the latter by name (to time it beside the others)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
-    if kernel not in (None, "bilstm_bwd_lite", "bilstm_bwd_lite_mma"):
+    tensor_core = {"bilstm_bwd_lite_mma": bilstm_bwd_lite_mma,
+                   "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32}
+    if kernel not in (None, "bilstm_bwd_lite", *tensor_core):
         raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
-    if (kernel or lite_kernel(xg.shape[-1] // 4, cd)) == "bilstm_bwd_lite_mma":
-        return bilstm_bwd_lite_mma(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
-                                   dhn, dcn, cd)
+    kernel = kernel or lite_kernel(xg.shape[-1] // 4, cd)
+    if kernel in tensor_core:
+        return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
+                                   dcn, cd)
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
                                            cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -2257,37 +2318,82 @@ def bilstm_bwd_lite_mma(
     ``wide_plan("lite_mma_uneven", ...)``'s), to time the two in turns; no
     dispatch asks for it. Its output carries no graph, so under grad mode
     it refuses an operand that requires grad, on the CPU too."""
+    if uneven and xg.is_cuda and xg.shape[-1] // 4 not in (256, 288):
+        raise ValueError(f"bilstm_bwd_lite_mma: the uneven instance takes H = 256 and 288, "
+                         f"got H={xg.shape[-1] // 4}")
+    return _lite_tensor_core(bilstm_bwd_lite_mma, lite_mma_check,
+                             "lite_mma_uneven" if uneven else "lite_mma", lambda w: w, xg,
+                             lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
+                             compute_dtype)
+
+
+bilstm_bwd_lite_mma.launches = 0
+
+
+def bilstm_bwd_lite_f32(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """One layer's backward sweep over its input gates in f32 on the tensor
+    cores, three tf32 passes a product (``csrc/bilstm_bwd_lite_f32.cu``:
+    8-block clusters, both products from one f32 fragment copy of
+    ``W_hh^T`` read from L2, ``recurrence_f32_weights``, split in
+    registers); the contract of :func:`bilstm_bwd_lite`. Takes the widths
+    ``lite_f32_check`` takes (float32, H = 128, 256 and 288) and raises for
+    the rest; the row tile is ``wide_plan("lite_f32", ...)``'s. Its output
+    carries no graph, so under grad mode it refuses an operand that requires
+    grad, on the CPU too."""
+    # the fragment copy of W_hh^T (2, G, H, 4H): the op's layout, so its copy serves
+    return _lite_tensor_core(bilstm_bwd_lite_f32, lite_f32_check, "lite_f32",
+                             lambda w: recurrence_f32_weights(w.transpose(-1, -2)), xg, lengths,
+                             w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+
+
+bilstm_bwd_lite_f32.launches = 0
+
+
+def _lite_tensor_core(wrapper, check, plan, weights, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,
+                      dyf, dyb, dhn, dcn, cd):
+    """The tensor-core lite sweeps' body: ``wrapper`` names the kernel
+    (``csrc/<name>.cu``) and counts its launches, ``check(H, dtype)`` refuses
+    what it does not take, ``wide_plan(plan, ...)`` picks its row tile and
+    ``weights(w_hh)`` is the weight operand it reads. On the CPU the plain
+    twin; under grad mode an operand that requires grad is refused."""
     dyf, dyb = tuple(dyf), tuple(dyb)
-    cd = compute_dtype
     _no_graph(xg, w_hh, hs_f, hs_b, cs_f, cs_b, *dyf, *dyb)
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
-    lite_mma_check(xg.shape[-1] // 4, cd)
-    if uneven and xg.shape[-1] // 4 not in (256, 288):
-        raise ValueError(f"bilstm_bwd_lite_mma: the uneven instance takes H = 256 and 288, "
-                         f"got H={xg.shape[-1] // 4}")
-    dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite_mma", xg, lengths, w_hh, hs_f,
-                                           hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+    name = wrapper.__name__
+    check(xg.shape[-1] // 4, cd)
+    dev, T, B, H, G, w_hh = _lite_operands(name, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,
+                                           dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dgates
-    rows, tiles, smem = wide_plan("lite_mma_uneven" if uneven else "lite_mma", B, G, H,
-                                  _max_clusters("bilstm_bwd_lite_mma", cd, H, dev))
+    rows, tiles, smem = wide_plan(plan, B, G, H, _max_clusters(name, cd, H, dev))
+    w = weights(w_hh)
     with torch.cuda.device(dev):
-        err = _kernels("bilstm_bwd_lite_mma").bilstm_bwd_lite_mma(
-            rows, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+        err = getattr(_kernels(name), name)(
+            rows, xg.data_ptr(), lengths.data_ptr(), w.data_ptr(),
             hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
             _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
             _opt_ptr(dhn), _opt_ptr(dcn), dgates.data_ptr(), T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
         )
-    _raise_on_error("bilstm_bwd_lite_mma", err)
-    bilstm_bwd_lite_mma.launches += 1
+    _raise_on_error(name, err)
+    wrapper.launches += 1
     return dgates
-
-
-bilstm_bwd_lite_mma.launches = 0
 
 
 # ------------------------------------------------------------ one layer, routed
@@ -2490,24 +2596,27 @@ def recurrence_wide_mma_check(H: int, compute_dtype: torch.dtype) -> None:
 
 def recurrence_wide_f32_check(H: int, compute_dtype: torch.dtype) -> None:
     """ValueError for a width or compute dtype the recurrence op's f32
-    tensor-core sweep past 288 (``lstm_recurrence_bwd_wide_f32``) does not
-    take: it takes float32 with H % 32 == 0 from ``REC_WIDE_MMA_MIN_H`` to
-    ``REC_MAX_H``."""
+    tensor-core kernels past 288 (``lstm_recurrence_{fwd,bwd}_wide_f32``) do
+    not take: they take float32 with H % 32 == 0 from ``REC_WIDE_MMA_MIN_H``
+    to ``REC_MAX_H``."""
     if compute_dtype != torch.float32 or H % 32 or not REC_WIDE_MMA_MIN_H <= H <= REC_MAX_H:
         raise ValueError(
-            f"lstm_recurrence_bwd_wide_f32 takes compute dtype float32 with H % 32 == 0 from "
-            f"{REC_WIDE_MMA_MIN_H} to {REC_MAX_H}, got H={H}, {compute_dtype}")
+            f"lstm_recurrence_bwd_wide_f32 (and lstm_recurrence_fwd_wide_f32) takes compute "
+            f"dtype float32 with H % 32 == 0 from {REC_WIDE_MMA_MIN_H} to {REC_MAX_H}, got H={H}, "
+            f"{compute_dtype}")
 
 
 def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's forward takes, by width and compute
-    dtype alone: bfloat16 past ``WIDE_MAX_THREADS`` units the tensor-core
-    ``"lstm_recurrence_fwd_wide_mma"``; the cluster kernel
-    ``"lstm_recurrence_fwd"`` for the rest (f32 at every width, bf16 up to
-    288); ValueError for what neither takes (``recurrence_check``)."""
+    dtype alone: past ``WIDE_MAX_THREADS`` units the tensor-core ones,
+    ``"lstm_recurrence_fwd_wide_mma"`` for bfloat16 and
+    ``"lstm_recurrence_fwd_wide_f32"`` (three tf32 passes) for float32; the
+    cluster kernel ``"lstm_recurrence_fwd"`` for the rest (up to 288);
+    ValueError for what none takes (``recurrence_check``)."""
     recurrence_check(H, compute_dtype)
-    if compute_dtype == torch.bfloat16 and H > WIDE_MAX_THREADS:
-        return "lstm_recurrence_fwd_wide_mma"
+    if H > WIDE_MAX_THREADS:
+        return "lstm_recurrence_fwd_wide_mma" if compute_dtype == torch.bfloat16 \
+            else "lstm_recurrence_fwd_wide_f32"
     return "lstm_recurrence_fwd"
 
 
@@ -2553,27 +2662,40 @@ def recurrence_wide_mma_smem(kind: str, H: int, rows: int) -> int:
             + H * part_stride * 4)
 
 
-def recurrence_wide_f32_smem(H: int, rows: int) -> int:
-    """Dynamic shared memory of a block of ``lstm_recurrence_bwd_wide_f32``
-    at H units and a row tile of ``rows``
-    (``csrc/lstm_recurrence_bwd_wide_f32.cu:smem_bytes``): the f32 h_prev
-    tile, the block's f32 dgates tile (32 gate columns for each of its at
-    most ceil(H / 64) unit groups), rows padded by ``REC_WIDE_F32_PAD``,
-    and the f32 partial dh of all H units (rows padded to 8 mod 16).
-    ValueError for a width ``recurrence_wide_f32_check`` refuses or a row
-    tile with no instance."""
+def recurrence_wide_f32_smem(H: int, rows: int, kind: str = "bwd") -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_{kind}_wide_f32``
+    (``kind`` "bwd" or "fwd") at H units and a row tile of ``rows``
+    (``csrc/lstm_recurrence_{bwd,fwd}_wide_f32.cu:smem_bytes``). "bwd": the
+    f32 h_prev tile, the block's f32 dgates tile (32 gate columns for each
+    of its at most ceil(H / 64) unit groups), rows padded by
+    ``REC_WIDE_F32_PAD``, and the f32 partial dh of all H units (rows padded
+    to 8 mod 16). "fwd": two f32 h tiles and the block's new h staged (8
+    units for each of its groups), rows padded the same. ValueError for a
+    width ``recurrence_wide_f32_check`` refuses or a row tile with no
+    instance."""
     recurrence_wide_f32_check(H, torch.float32)
-    if rows not in REC_WIDE_F32_ROWS[1 if H <= 512 else 2]:
-        raise ValueError(f"lstm_recurrence_bwd_wide_f32: no instance for a row tile of {rows} "
-                         f"at H={H}")
+    table = REC_WIDE_F32_FWD_ROWS if kind == "fwd" else REC_WIDE_F32_ROWS
+    if rows not in table[1 if H <= 512 else 2]:
+        raise ValueError(f"lstm_recurrence_{kind}_wide_f32: no instance for a row tile of "
+                         f"{rows} at H={H}")
+    if kind == "fwd":
+        pad = REC_WIDE_F32_PAD
+        return 2 * rows * (H + pad) * 4 + rows * (8 * -(-H // 64) + pad) * 4
+    return _wide_f32_sweep_smem(H, rows)
+
+
+def _wide_f32_sweep_smem(H: int, rows: int) -> int:
+    # the f32 sweeps reading their weights from L2 (the op's past 288 and the
+    # layer's lite one): f32 h_prev tile, dgates tile, one partial dh buffer
     pad, part_stride = REC_WIDE_F32_PAD, rows + (8 - rows) % 16
     return (rows * (H + pad) * 4 + rows * (32 * -(-H // 64) + pad) * 4
             + H * part_stride * 4)
 
 
 def recurrence_f32_weights(w: torch.Tensor) -> torch.Tensor:
-    """The copy of ``w (D, G, H, 4H)`` (f32) that the f32 tensor-core sweep
-    past 288 reads: for each (d, g), unit group of 8, k8 step kk of the H
+    """The copy of ``w (D, G, H, 4H)`` (f32) that the f32 tensor-core kernels
+    read from L2 (the op's forward and sweep past 288; the layer's lite
+    sweep, from ``w_hh`` transposed): for each (d, g), unit group of 8, k8 step kk of the H
     inputs and m16 half mt of the group's 32 permuted gate rows (row
     32 * group + 8 * gate + unit % 8, ``bilstm_mma.cuh``), every lane's
     ``mma.sync`` tf32 A fragment, ``(D, G, H / 8, H / 8, 2, 32, 4)``. Lane
@@ -2628,9 +2750,8 @@ def recurrence_f32_smem(H: int) -> int:
 
 def recurrence_global_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
     """The copy of ``w (D, G, H, 4H)`` the cluster kernels read past
-    ``WIDE_MAX_THREADS`` units (the f32 forward; the cluster sweep, and the
-    bf16 forward, when asked for by name: past 288 the sweep is a
-    tensor-core one in either dtype), where a
+    ``WIDE_MAX_THREADS`` units when they are asked for by name (past 288 the
+    forward and the sweep are tensor-core ones in either dtype), where a
     block's f32 slice no longer fits shared memory: f32, laid out as the
     shared slices are, ``(D, G,
     WIDE_CLUSTER, H, H / 8, 4)`` ([d][g][block][k][unit][gate]), so each
@@ -2665,7 +2786,7 @@ def _recurrence_operands(xg, valid, w, G, cd, what):
 
 def lstm_recurrence_fwd(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
-    kernel: Optional[str] = None,
+    kernel: Optional[str] = None, wf: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The masked recurrence over time-major input gates; the contract of
     ``ops/lstm_recurrence.py:recurrence_fwd``.
@@ -2675,21 +2796,26 @@ def lstm_recurrence_fwd(
     :returns: ``hs, cs (T, D, B, H)`` and ``hn, cn (D, B, H)``, f32.
 
     On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
-    for its width and dtype: the tensor-core one through
-    :func:`lstm_recurrence_fwd_wide_mma` (whose ``.launches`` then counts
-    it), or the cluster kernel here. ``kernel="lstm_recurrence_fwd"`` asks
-    for the latter by name (to time it beside the other).
+    for its width and dtype: a tensor-core one through
+    :func:`lstm_recurrence_fwd_wide_mma` or :func:`lstm_recurrence_fwd_wide_f32`
+    (whose ``.launches`` then counts it; ``wf``, the f32 fragment copy
+    ``recurrence_f32_weights(w)`` where the caller has it, goes to the
+    latter), or the cluster kernel here. ``kernel="lstm_recurrence_fwd"``
+    asks for the latter by name (to time it beside the others).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_fwd"
-    if kernel not in (None, name, "lstm_recurrence_fwd_wide_mma"):
+    if kernel not in (None, name, "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_fwd_wide_f32"):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
-    if (kernel or recurrence_fwd_kernel(H, cd)) == "lstm_recurrence_fwd_wide_mma":
+    kernel = kernel or recurrence_fwd_kernel(H, cd)
+    if kernel == "lstm_recurrence_fwd_wide_mma":
         return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd)
+    if kernel == "lstm_recurrence_fwd_wide_f32":
+        return lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
     hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
     hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
@@ -2720,32 +2846,75 @@ def lstm_recurrence_fwd_wide_mma(
     weight fragments read from L2 once a step for the whole row tile); the
     contract of :func:`lstm_recurrence_fwd`. Takes bfloat16 with H % 32 == 0
     from 320 to ``REC_MAX_H`` and raises for the rest."""
+    return _wide_recurrence_fwd(lstm_recurrence_fwd_wide_mma, recurrence_wide_mma_check,
+                                "rec_fwd_mma", recurrence_mma_weights, xg, valid, w, G,
+                                compute_dtype)
+
+
+lstm_recurrence_fwd_wide_mma.launches = 0
+
+
+def lstm_recurrence_fwd_wide_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+    wf: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward in f32 on the tensor cores past 288 units,
+    three tf32 passes a product (``csrc/lstm_recurrence_fwd_wide_f32.cu``:
+    the schedule of :func:`lstm_recurrence_fwd_wide_mma` on the f32 fragment
+    copy the f32 sweep reads, ``recurrence_f32_weights``, split in
+    registers); the contract of :func:`lstm_recurrence_fwd`. ``wf`` is that
+    copy of ``w`` where the caller has built it (``FusedLSTMRecurrence``
+    builds it once for the forward and the sweep), else it is built here.
+    Takes float32 with H % 32 == 0 from 320 to ``REC_MAX_H`` and raises for
+    the rest."""
+    return _wide_recurrence_fwd(lstm_recurrence_fwd_wide_f32, recurrence_wide_f32_check,
+                                "rec_fwd_f32", lambda w: _f32_copy(w, wf), xg, valid, w, G,
+                                compute_dtype)
+
+
+lstm_recurrence_fwd_wide_f32.launches = 0
+
+
+def _wide_recurrence_fwd(wrapper, check, plan, copy, xg, valid, w, G, compute_dtype):
+    """The tensor-core recurrence forwards' body past 288: ``wrapper`` names
+    the kernel (``csrc/<name>.cu``: 8-block clusters reading the weight
+    fragments from L2) and counts its launches, ``check(H, dtype)`` refuses
+    what it does not take, ``wide_plan(plan, ...)`` picks its row tile,
+    ``copy(w)`` lays out its weight fragments. On the CPU the plain twin;
+    under grad mode an operand that requires grad is refused."""
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
-    cd, name = compute_dtype, "lstm_recurrence_fwd_wide_mma"
+    cd, name = compute_dtype, wrapper.__name__
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
-    recurrence_wide_mma_check(H, cd)
+    check(H, cd)
+    wf = copy(w)
     hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
     hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
     cn = torch.zeros_like(hn)
     if B * D == 0 or T == 0:
         return hs, cs, hn, cn
-    R, tiles, smem = wide_plan("rec_fwd_mma", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    wg = recurrence_mma_weights(w)
+    R, tiles, smem = wide_plan(plan, B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
     with torch.cuda.device(dev):
-        err = _kernels(name).lstm_recurrence_fwd_wide_mma(
-            R, xg.data_ptr(), valid8.data_ptr(), wg.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        err = getattr(_kernels(name), name)(
+            R, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
         )
     _raise_on_error(name, err)
-    lstm_recurrence_fwd_wide_mma.launches += 1
+    wrapper.launches += 1
     return hs, cs, hn, cn
 
 
-lstm_recurrence_fwd_wide_mma.launches = 0
+def _f32_copy(w: torch.Tensor, wf: Optional[torch.Tensor]) -> torch.Tensor:
+    """``wf`` checked as the f32 fragment copy of ``w``'s shape, or that
+    copy built (``recurrence_f32_weights``)."""
+    if wf is None:
+        return recurrence_f32_weights(w)
+    D, G, H, _ = w.shape
+    _check("wf", wf, (D, G, H // 8, H // 8, 2, 32, 4), torch.float32, w.device)
+    return wf
 
 
 def _recurrence_sweep_operands(what, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd):
@@ -2768,6 +2937,7 @@ def lstm_recurrence_bwd(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
     dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
     G: int, compute_dtype: torch.dtype, kernel: Optional[str] = None,
+    wf: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The recurrence's backward sweep; the contract of
     ``ops/lstm_recurrence.py:recurrence_sweep``: the masked f32 gate
@@ -2779,8 +2949,10 @@ def lstm_recurrence_bwd(
     :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32`,
     :func:`lstm_recurrence_bwd_wide_mma` or
     :func:`lstm_recurrence_bwd_wide_f32` (whose ``.launches`` then counts
-    it), or the cluster kernel here. ``kernel="lstm_recurrence_bwd"`` asks
-    for the latter by name (to time it beside the others)."""
+    it; ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where
+    the caller has it, goes to the last), or the cluster kernel here.
+    ``kernel="lstm_recurrence_bwd"`` asks for the latter by name (to time it
+    beside the others)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
@@ -2793,6 +2965,8 @@ def lstm_recurrence_bwd(
     kernel = kernel or recurrence_sweep_kernel(H, cd)
     if kernel in _TILE_SWEEP:
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if kernel == "lstm_recurrence_bwd_wide_f32":
+        return lstm_recurrence_bwd_wide_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel in _WIDE_SWEEP:
         return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
@@ -2837,17 +3011,19 @@ lstm_recurrence_bwd_wide_mma.launches = 0
 def lstm_recurrence_bwd_wide_f32(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
     dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
-    G: int, compute_dtype: torch.dtype,
+    G: int, compute_dtype: torch.dtype, wf: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The recurrence's backward sweep in f32 on the tensor cores past 288
     units, three tf32 passes a product (``csrc/lstm_recurrence_bwd_wide_f32.cu``:
     the design of :func:`lstm_recurrence_bwd_wide_mma` on an f32 copy of the
     weight fragments, ``recurrence_f32_weights``, split in registers); the
-    contract of :func:`lstm_recurrence_bwd`. Takes float32 with
-    H % 32 == 0 from 320 to ``REC_MAX_H`` and raises for the rest."""
+    contract of :func:`lstm_recurrence_bwd`. ``wf`` is that copy of ``w``
+    where the caller has it (the forward's), else it is built here. Takes
+    float32 with H % 32 == 0 from 320 to ``REC_MAX_H`` and raises for the
+    rest."""
     return _wide_recurrence_sweep(lstm_recurrence_bwd_wide_f32, recurrence_wide_f32_check,
-                                  "rec_bwd_f32", recurrence_f32_weights, xg, valid, w, hs, cs,
-                                  dhs, dhn, dcn, G, compute_dtype)
+                                  "rec_bwd_f32", lambda w: _f32_copy(w, wf), xg, valid, w, hs,
+                                  cs, dhs, dhn, dcn, G, compute_dtype)
 
 
 lstm_recurrence_bwd_wide_f32.launches = 0

@@ -177,19 +177,30 @@ class FusedLSTMRecurrence(torch.autograd.Function):
     ``lstm_cuda.recurrence_width(H)``: a width the kernels do not take is
     padded with zero units, and what comes back is cut to H. Past the
     card's widest (``REC_MAX_H``) a CUDA tensor raises and a CPU tensor
-    runs the plain versions unpadded."""
+    runs the plain versions unpadded. On the card in f32 past 288 units the
+    forward and the sweep read one f32 fragment copy of the weights
+    (``lstm_cuda.recurrence_f32_weights``), built once here."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):
-        from intrepppid_tpu_torch.ops.lstm_cuda import lstm_recurrence_fwd, recurrence_width
+        from intrepppid_tpu_torch.ops.lstm_cuda import (
+            lstm_recurrence_fwd,
+            recurrence_f32_weights,
+            recurrence_fwd_kernel,
+            recurrence_width,
+        )
 
         ctx.set_materialize_grads(False)
         H = w.shape[-2]
         Hp = recurrence_width(H, compute_dtype, on_card=xg.is_cuda)
         xg_k, w_k = _padded(xg, w, H, Hp)
-        hs, cs, hn, cn = lstm_recurrence_fwd(xg_k, valid, w_k, G, compute_dtype)
+        wf = None
+        if xg.is_cuda and recurrence_fwd_kernel(Hp, compute_dtype) == \
+                "lstm_recurrence_fwd_wide_f32":
+            wf = recurrence_f32_weights(w_k.detach())
+        hs, cs, hn, cn = lstm_recurrence_fwd(xg_k, valid, w_k, G, compute_dtype, wf=wf)
         ctx.save_for_backward(xg, valid, w, hs, cs)
-        ctx.G, ctx.compute_dtype = G, compute_dtype
+        ctx.G, ctx.compute_dtype, ctx.wf = G, compute_dtype, wf
         if Hp == H:
             return hs, hn, cn
         return tuple(t[..., :H].contiguous() for t in (hs, hn, cn))
@@ -211,7 +222,8 @@ class FusedLSTMRecurrence(torch.autograd.Function):
         def f32(t):
             return None if t is None else pad_units(t.float(), H, Hp).contiguous()
 
-        dxg = lstm_recurrence_bwd(xg_k, valid, w_k, hs, cs, f32(dhs), f32(dhn), f32(dcn), G, cd)
+        dxg = lstm_recurrence_bwd(xg_k, valid, w_k, hs, cs, f32(dhs), f32(dhn), f32(dcn), G, cd,
+                                  wf=ctx.wf)
         dw = None
         if ctx.needs_input_grad[2]:
             dw = lstm_recurrence_wgrad(hs, dxg, G, cd)

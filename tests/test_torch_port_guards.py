@@ -62,7 +62,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
                        "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage",
                        "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
-                       "lstm_recurrence_bwd_wide_f32"}
+                       "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
+                       "bilstm_bwd_lite_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -70,7 +71,8 @@ def test_every_kernel_source_is_built_and_bound():
         assert f"int {fn}(" in text and lstm_cuda._ERROR_STRING[name] in text
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"bilstm_common.cuh", "bilstm_mma.cuh",
                                                            "bilstm_bwd_f32.cuh",
-                                                           "lstm_recurrence_wide_mma.cuh"}
+                                                           "lstm_recurrence_wide_mma.cuh",
+                                                           "lstm_recurrence_wide_f32.cuh"}
     # every constant the wrappers check is exported by its source, and the
     # tensor-core kernels share the fragment header
     for name, (getters, want) in lstm_cuda._CONSTANTS.items():
@@ -122,16 +124,30 @@ def test_every_kernel_source_is_built_and_bound():
         assert "mapa_u32(" in body and "map_shared_rank(" not in body
     body = (_build.CSRC / "lstm_recurrence_bwd_wide_mma.cu").read_text().rsplit("#include", 1)[1]
     assert "movmatrix_trans(" in body and "mma_a4(" in body
-    # the f32 sweep past 288 keeps that split and exchange on the header's
-    # helpers, with both products in three tf32 passes (mma3) on one f32
-    # copy of the fragments, split in registers, the dh product's
-    # transposed through movmatrix
-    text = (_build.CSRC / "lstm_recurrence_bwd_wide_f32.cu").read_text()
-    assert '#include "lstm_recurrence_wide_mma.cuh"' in text
-    body = text.rsplit("#include", 1)[1]
-    assert body.count("mma_tf32(") == 3 and body.count("mma3(") == 3
-    assert "split_tf32(" in body and "movmatrix_trans(" in body and "mma_bf16(" not in body
-    assert "launch_wide_dirs(" in body and "ld_dsmem_f2(" in body and "mapa_u32(" in body
+    # the f32 kernels that read one f32 copy of the fragments from L2 (the
+    # op's sweep and forward past 288, the layer's lite sweep) keep that
+    # split and exchange on the headers' helpers; their header holds the
+    # three tf32 passes (mma3), the split in registers, the chunk loads and
+    # the dh product's fragments transposed through movmatrix
+    header = (_build.CSRC / "lstm_recurrence_wide_f32.cuh").read_text()
+    assert '#include "lstm_recurrence_wide_mma.cuh"' in header
+    assert header.count("mma_tf32(") == 3 and "split_tf32(" in header
+    assert "movmatrix_trans(" in header and "mma_bf16(" not in header
+    for name, exchange, launch in (
+            ("lstm_recurrence_bwd_wide_f32", "ld_dsmem_f2(", "launch_wide_dirs("),
+            ("lstm_recurrence_fwd_wide_f32", "st_dsmem_v4(", "launch_wide_dirs("),
+            ("bilstm_bwd_lite_f32", "ld_dsmem_f2(", "launch_wide(")):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "lstm_recurrence_wide_f32.cuh"' in text
+        body = text.rsplit("#include", 1)[1]
+        assert "mma_tf32(" not in body and "mma_bf16(" not in body, name
+        assert launch in body and exchange in body and "mapa_u32(" in body, name
+        assert "map_shared_rank(" not in body, name
+    for name in ("lstm_recurrence_bwd_wide_f32", "bilstm_bwd_lite_f32"):
+        body = (_build.CSRC / f"{name}.cu").read_text().rsplit("#include", 1)[1]
+        assert "dh_fragment(" in body and "mma3(" in body and "chunk_load(" in body, name
+    body = (_build.CSRC / "lstm_recurrence_fwd_wide_f32.cu").read_text().rsplit("#include", 1)[1]
+    assert "gate_mma_f32<" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, 288, and for the recurrence op up to 1024 threads with
     # its weight slices read from the global copy)

@@ -649,25 +649,31 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     (352, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
     (512, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
     (1024, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
-    (320, torch.float32, "lstm_recurrence_fwd"), (1024, torch.float32, "lstm_recurrence_fwd"),
+    (320, torch.float32, "lstm_recurrence_fwd_wide_f32"),
+    (512, torch.float32, "lstm_recurrence_fwd_wide_f32"),
+    (1024, torch.float32, "lstm_recurrence_fwd_wide_f32"),
     (48, torch.bfloat16, None), (64, torch.float16, None), (1056, torch.bfloat16, None)])
 def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
-    """The forward's picker, by width and dtype alone: bf16 past 288 the
-    tensor-core forward, up to the op's 1024 on the card; the cluster
-    kernel for the rest; what neither takes is refused by the op's check."""
+    """The forward's picker, by width and dtype alone: past 288 the
+    tensor-core forwards, bf16 and (three tf32 passes) f32, up to the op's
+    1024 on the card; the cluster kernel for the rest; what none takes is
+    refused by the op's check."""
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
             lstm_cuda.recurrence_fwd_kernel(H, dtype)
         return
     assert lstm_cuda.recurrence_fwd_kernel(H, dtype) == kernel
+    if kernel.endswith("wide_f32"):
+        assert min(lstm_cuda.recurrence_wide_f32_smem(H, R, "fwd") for R in
+                   lstm_cuda.REC_WIDE_F32_FWD_ROWS[1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
 
 
 def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
     and bf16 names the forward, sweep and wgrad it named before the
     tensor-core kernels past 288, except the bf16 forward and sweep there
-    and the f32 sweep there (three tf32 passes); what was refused stays
-    refused."""
+    and the f32 forward and sweep there (three tf32 passes); what was
+    refused stays refused."""
     def parent(H, dtype):
         sweep = "lstm_recurrence_bwd"
         if H in (32, 64):
@@ -690,7 +696,7 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
             if dtype == torch.bfloat16 and H > 288:
                 want = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma", want[2])
             if dtype == torch.float32 and H > 288:
-                want = (want[0], "lstm_recurrence_bwd_wide_f32", want[2])
+                want = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32", want[2])
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
 
 
@@ -1411,13 +1417,15 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
     [
         (256, torch.bfloat16, "bilstm_bwd_lite_mma"),
         (128, torch.bfloat16, "bilstm_bwd_lite_mma"),
-        (256, torch.float32, "bilstm_bwd_lite"),   # f32 keeps the CUDA-core sweep
-        (128, torch.float32, "bilstm_bwd_lite"),
+        (256, torch.float32, "bilstm_bwd_lite_f32"),  # three tf32 passes
+        (128, torch.float32, "bilstm_bwd_lite_f32"),
+        (96, torch.float32, "bilstm_bwd_lite"),    # f32 keeps the CUDA-core sweep here
+        (192, torch.float32, "bilstm_bwd_lite"),
         (192, torch.bfloat16, "bilstm_bwd_lite"),  # m16 tiles not even over 8 warps
         (96, torch.bfloat16, "bilstm_bwd_lite"),   # no whole 8-unit groups a block
         (32, torch.bfloat16, "bilstm_bwd_lite"),
         (80, torch.bfloat16, None),
-        (288, torch.float32, "bilstm_bwd_lite"),   # the 288-thread instance
+        (288, torch.float32, "bilstm_bwd_lite_f32"),  # 4 or 5 unit groups a block
         (288, torch.bfloat16, "bilstm_bwd_lite_mma"),  # 4 or 5 unit groups a block
         (320, torch.float32, None),
         (256, torch.float16, None),
@@ -1460,7 +1468,7 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
     route and never move a layer between routes: every (E_parts, H) keeps
     its route (at its padded width), every wide layer has an input-gate and
     a sweep kernel, and the scaled configuration's layers take the
-    tensor-core ones in bf16."""
+    tensor-core ones (in f32 the sweep's three tf32 passes)."""
     for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
                         [32, 32], [64, 64], [128, 128], [256, 256]):
@@ -1471,8 +1479,8 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             gates, lite = lstm_cuda.gates_kernel(Ep, H, dtype), lstm_cuda.lite_kernel(H, dtype)
             bf16 = dtype == torch.bfloat16
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates")
-            assert lite == ("bilstm_bwd_lite_mma" if bf16 and H in (128, 256, 288)
-                            else "bilstm_bwd_lite")
+            assert lite == ("bilstm_bwd_lite" if H not in (128, 256, 288)
+                            else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
 
@@ -1865,8 +1873,9 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     and wgrad against their plain versions. Groups of 12, 15 and 8 rows
     leave short row tiles inside each group. In bf16 the gates and (at
     H = 128 and 256) the forward and the sweep are the tensor-core kernels,
-    counted on their own wrappers, and the CUDA-core ones are held by name
-    too; in f32 wgrad is the 3xTF32 kernel at every width here."""
+    in f32 (at H = 128 and 256) the sweep (three tf32 passes), counted on
+    their own wrappers, and the CUDA-core ones are held by name too; in f32
+    wgrad is the 3xTF32 kernel at every width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -1882,15 +1891,18 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite,
                 lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
-                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32)
+                lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32,
+                lstm_cuda.bilstm_bwd_lite_f32)
     before = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
     close([xg], [input_gates(parts, w_ih, bias, dtype)])
     gates_mma = lstm_cuda.gates_kernel(E_parts, H, dtype) == "bilstm_gates_mma"
     lite_mma = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma"
+    lite_f32 = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_f32"
     fwd_mma = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma"
     assert gates_mma == (dtype == torch.bfloat16)
     assert lite_mma == fwd_mma == (dtype == torch.bfloat16 and H in (128, 256))
+    assert lite_f32 == (dtype == torch.float32 and H in (128, 256))
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
     close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
@@ -1907,7 +1919,7 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     if gates_mma:
         close([lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")],
               [input_gates(parts, w_ih, bias, dtype)])
-    if lite_mma:
+    if lite_mma or lite_f32:
         close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [dgates])
     dgc = dgates.to(dtype)
     close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
@@ -1916,7 +1928,7 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
         1, 1, 1, 1, int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma), 0, int(bf16),
-        int(not bf16)]
+        int(not bf16), int(lite_f32)]
 
 
 @pytest.mark.cuda
@@ -1972,17 +1984,18 @@ def test_forward_and_backward_input_gates_agree_bitwise_on_card(cuda_device, mon
 
 @pytest.mark.cuda
 def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
-    """A model at embedding 128 (H = 128) takes the wide route on the card;
-    its gradients equal the CPU plain path's."""
+    """A model at embedding 128 (H = 128) takes the wide route on the card,
+    its sweeps the f32 tensor-core lite sweep (never the CUDA-core one); its
+    gradients equal the CPU plain path's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
-    before = (lstm_cuda.bilstm_gates.launches, lstm_cuda.bilstm_fwd_wide_train.launches,
-              lstm_cuda.bilstm_bwd_lite.launches, lstm_cuda.bilstm_layer_fwd_train.launches)
+    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_bwd_lite_f32)
+    before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, embedding_size=128)
     torch.cuda.synchronize()
-    after = (lstm_cuda.bilstm_gates.launches, lstm_cuda.bilstm_fwd_wide_train.launches,
-             lstm_cuda.bilstm_bwd_lite.launches, lstm_cuda.bilstm_layer_fwd_train.launches)
-    assert [a - b for a, b in zip(after, before)] == [4, 2, 2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 0, 2]
     want = model_grads(torch.device("cpu"), embedding_size=128)
     for name, grad in got.items():
         ref = want[name]
@@ -2976,8 +2989,8 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     groups, ragged lengths, two dy streams; the row tiles ``wide_plan``
     picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16. In bf16 the
     dispatch names the tensor-core kernels there (the forward's and the lite
-    sweep's instances for uneven groups), so the CUDA-core ones are asked
-    for by name."""
+    sweep's instances for uneven groups), in f32 the tensor-core lite sweep
+    (three tf32 passes), so the CUDA-core ones are asked for by name."""
     H, G, B = 288, 5, 60
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
@@ -2986,7 +2999,7 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
         "bilstm_fwd_wide" if f32 else "bilstm_fwd_wide_mma")
     assert lstm_cuda.lite_kernel(H, dtype) == (
-        "bilstm_bwd_lite" if f32 else "bilstm_bwd_lite_mma")
+        "bilstm_bwd_lite_f32" if f32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
@@ -3247,16 +3260,22 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H", [320, 512])
-def test_recurrence_wide_f32_autograd_on_card(cuda_device, H):
+def test_recurrence_wide_f32_autograd_on_card(cuda_device, monkeypatch, H):
     """``fused_lstm_recurrence`` in f32 past 288 on the card, through the
-    global-weight forward, the f32 tensor-core sweep and the CUDA-core
-    wgrad: outputs and the gradients of xg and w equal the CPU plain
+    f32 tensor-core forward and sweep (one f32 fragment copy of the weights
+    built once for both) and the CUDA-core wgrad, never the global-weight
+    instances: outputs and the gradients of xg and w equal the CPU plain
     path's within 1e-4 x max(1, max|ref|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     T, D, B, G, cd = 10, 2, 12, 2, torch.float32
     cpu = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes", seed=H)
-    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd_wide_f32,
-                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_wgrad)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_bwd_wide_f32,
+                lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
+                lstm_cuda.lstm_recurrence_wgrad)
+    copies = []
+    weights = lstm_cuda.recurrence_f32_weights
+    monkeypatch.setattr(lstm_cuda, "recurrence_f32_weights",
+                        lambda w: copies.append(w.shape) or weights(w))
     before = [f.launches for f in wrappers]
     got = {}
     for dev in (cuda_device, torch.device("cpu")):
@@ -3266,7 +3285,8 @@ def test_recurrence_wide_f32_autograd_on_card(cuda_device, H):
         torch.autograd.backward(out, [dhs, dhn, dcn])
         got[dev.type] = [xg.grad.cpu(), w.grad.cpu(), *(o.detach().cpu() for o in out)]
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 0, 1]
+    assert copies == [(D, G, H, 4 * H)]  # one copy for the forward and the sweep
     _close(got["cuda"], got["cpu"], 1e-4)
 
 
@@ -3472,3 +3492,268 @@ def test_sweep_mma_at_80_and_fwd_wide_mma_at_288_reject_bad_operands_on_card(cud
         lstm_cuda.bilstm_fwd_wide_mma(xg, lengths[:7], w, torch.bfloat16)
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == before
+
+
+# ------------------------------------------- the f32 tensor-core lite sweep
+@pytest.mark.parametrize("H,want", [(128, {16: 26624, 32: 49152}),
+                                    (256, {16: 51200, 32: 94208}),
+                                    (288, {16: 58368, 32: 107520})])
+def test_lite_f32_smem_and_plan(H, want):
+    """The f32 tensor-core lite sweep's shared memory by row tile, as its
+    source lays it out (the op sweep's: the f32 h_prev tile and the block's
+    f32 dgates tile of ceil(H / 64) groups, rows padded by 16 floats; one
+    f32 partial dh of all units, rows padded to 8 mod 16; the weights stay
+    in L2); the plan takes the fewest waves, then the smallest tile: at the
+    train step's 400 rows in 5 groups with 15 clusters on the card 32-row
+    tiles, 30 clusters in two waves. It refuses bf16, the widths it does
+    not take and a tile with no instance."""
+    got = {R: lstm_cuda.wide_smem("lite_f32", H, R) for R in lstm_cuda.LITE_F32_ROWS}
+    assert got == want
+    R = 32
+    assert want[R] == R * (H + 16) * 4 + R * (32 * -(-H // 64) + 16) * 4 + H * 40 * 4
+    assert lstm_cuda.wide_plan("lite_f32", 400, 5, H, lambda R, b: 15) == (32, 15, want[32])
+    assert lstm_cuda.wide_plan("lite_f32", 40, 5, H, lambda R, b: 15)[0] == 16
+    for bad, dtype in ((96, torch.float32), (224, torch.float32), (H, torch.bfloat16)):
+        with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
+            lstm_cuda.lite_f32_check(bad, dtype)
+    with pytest.raises(ValueError, match="no instance for a row tile of 24"):
+        lstm_cuda.wide_smem("lite_f32", H, 24)
+
+
+@pytest.mark.parametrize("ny", [0, 2])
+@pytest.mark.parametrize("H", [128, 288])
+def test_lite_f32_wrapper_takes_plain_version_on_cpu(H, ny):
+    """The f32 tensor-core lite sweep takes the plain twin for CPU tensors,
+    counting no launch; ``bilstm_bwd_lite`` hands f32 at 128 / 256 / 288 to
+    it only on the card and reaches it and the CUDA-core sweep by name;
+    operands that require grad are refused. Its weight copy is the op
+    sweep's layout of ``W_hh^T``: the fragment copy of ``w_hh`` transposed
+    is that of the op's ``w``."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(5, 6, [H], H, 2, cd,
+                                                                 torch.device("cpu"), seed=ny)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    want = bidir_layer_sweep_lite(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32(*args), want)
+    for kernel in (None, "bilstm_bwd_lite_f32", "bilstm_bwd_lite"):
+        assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args, kernel=kernel), want)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_lite_f32(xg, lengths, w_hh.clone().requires_grad_(), *args[3:])
+    op_w = w_hh.transpose(-1, -2).contiguous()  # (2, G, H, 4H)
+    assert torch.equal(lstm_cuda.recurrence_f32_weights(w_hh.transpose(-1, -2)),
+                       lstm_cuda.recurrence_f32_weights(op_w))
+
+
+@pytest.mark.parametrize("H,want", [(320, {32: 93184, 48: 139776}),
+                                    (512, {32: 145408, 48: 218112}),
+                                    (1024, {16: 142336})])
+def test_recurrence_fwd_wide_f32_smem_and_plan(H, want):
+    """The f32 tensor-core forward past 288: its shared memory by row tile
+    (two f32 h tiles and the block's new h staged, rows padded by 16
+    floats: 2 rows (H + 16) 4 + rows (8 ceil(H / 64) + 16) 4 bytes; 32 and
+    48 rows up to 512, at 1024 16-row tiles only), and the plan at the train
+    step's 400 rows in 5 groups with 15 clusters on the card: the fewest
+    waves, then the smallest tile (32 rows up to 512, two waves either way
+    at 32 and 48)."""
+    rows = lstm_cuda.REC_WIDE_F32_FWD_ROWS[1 if H <= 512 else 2]
+    got = {R: lstm_cuda.recurrence_wide_f32_smem(H, R, "fwd") for R in rows}
+    assert got == want and all(b <= lstm_cuda.SMEM_LIMIT for b in want.values())
+    for R in rows:
+        assert want[R] == 2 * R * (H + 16) * 4 + R * (8 * -(-H // 64) + 16) * 4
+        assert lstm_cuda.wide_smem("rec_fwd_f32", H, R) == want[R]
+    R, tiles, smem = lstm_cuda.wide_plan("rec_fwd_f32", 400, 5, H, lambda R, b: 15, 2)
+    waves = {r: -(-2 * 5 * -(-80 // r) // 15) for r in want}
+    assert waves[R] == min(waves.values()) and R == min(r for r in want if waves[r] == waves[R])
+    assert tiles == 5 * -(-80 // R) and smem == want[R]
+    assert R == (32 if H <= 512 else 16)
+    for bad in (80, 16 if H <= 512 else 32):
+        with pytest.raises(ValueError, match=f"no instance for a row tile of {bad}"):
+            lstm_cuda.recurrence_wide_f32_smem(H, bad, "fwd")
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        lstm_cuda.recurrence_wide_f32_smem(288, 16, "fwd")
+
+
+@pytest.mark.parametrize("H", [320, 512])
+def test_recurrence_fwd_wide_f32_wrapper_takes_plain_version_on_cpu(H):
+    """The f32 tensor-core forward past 288 takes the plain twin for CPU
+    tensors, counting no launch, and refuses operands that require grad;
+    ``lstm_recurrence_fwd`` hands f32 past 288 to it only on the card and
+    reaches it and the global-weight instance by name."""
+    T, D, B, G, cd = 3, 2, 4, 2, torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes")
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b) for a, b in zip(
+        lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd), want))
+    for kernel in (None, "lstm_recurrence_fwd_wide_f32", "lstm_recurrence_fwd"):
+        assert all(torch.equal(a, b) for a, b in zip(
+            lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=kernel), want))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w.clone().requires_grad_(), G, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("H,G,B,T", [(128, 5, 400, 6), (256, 5, 400, 5), (288, 5, 400, 5),
+                                     (128, 1, 30, 12), (256, 3, 27, 9), (288, 1, 20, 1),
+                                     (288, 2, 50, 12)])
+def test_lite_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T, rows):
+    """The f32 tensor-core lite sweep (three tf32 passes) at each row tile
+    (pinned with monkeypatch on the plan's candidates) against its plain
+    twin at 1e-4 x max(1, max|ref|): 400 rows in 5 groups (the train step's
+    shape) and groups of 30, 9, 20 and 25 rows that leave short tiles, G = 1
+    too; 0, 1 and 2 dy streams, with and without final-state cotangents;
+    lengths of 0, 1 and T; T = 1. The dispatch names it (its wrapper counts
+    the launches), and the CUDA-core sweep by name agrees."""
+    monkeypatch.setattr(lstm_cuda, "LITE_F32_ROWS", (rows,))
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd,
+                                                                 cuda_device, seed=H + T)
+    assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32"
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    for ny, final in ((2, True), (1, False), (0, True)):
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+                dhn if final else None, dcn if final else None, cd)
+        want = bidir_layer_sweep_lite(*args)
+        _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 1]
+
+
+@pytest.mark.cuda
+def test_lite_f32_rejects_bad_operands_on_card(cuda_device):
+    """The f32 tensor-core lite sweep refuses what its kernel does not take,
+    before any launch: bf16, a width it is not built for, a bf16 stream, a
+    weight of the wrong shape, three dy streams, an unknown kernel name,
+    and operands that require grad."""
+    cd, H = torch.float32, 128
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [H], H, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs = torch.zeros(4, 10, H, device=cuda_device)
+    args = (xg, lengths, w_hh, hs, hs, hs, hs, dy[:1], dy[2:3], dhn, dcn, cd)
+    wrapper = lstm_cuda.bilstm_bwd_lite_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
+        wrapper(*args[:-1], torch.bfloat16)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
+        wrapper(xg[..., :4 * 96].contiguous(), lengths, w_hh[..., :4 * 96, :96].contiguous(),
+                *(t[..., :96].contiguous() for t in (hs, hs, hs, hs)), (), (), None, None, cd)
+    with pytest.raises(ValueError, match="hs_f must be a contiguous"):
+        wrapper(xg, lengths, w_hh, hs.to(torch.bfloat16), *args[4:])
+    with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+        wrapper(xg, lengths, w_hh[..., :64].contiguous(), *args[3:])
+    with pytest.raises(ValueError, match="0-2 dy streams"):
+        wrapper(*args[:7], dy[:3], dy[:3], dhn, dcn, cd)
+    with pytest.raises(ValueError, match="no lite sweep kernel named"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite_tf32")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        wrapper(xg.clone().requires_grad_(), *args[1:])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D,G,B,T,mask", [
+    (320, 2, 2, 16, 12, "lengths"), (320, 1, 5, 30, 9, "holes"), (352, 3, 1, 9, 7, "holes"),
+    (512, 2, 5, 50, 10, "lengths"), (512, 3, 2, 20, 7, "holes"), (512, 2, 1, 10, 1, "holes"),
+    (512, 1, 1, 81, 5, "off"), (512, 2, 5, 400, 3, "lengths"), (544, 2, 2, 12, 6, "holes"),
+    (1024, 2, 2, 12, 6, "holes"), (992, 2, 1, 9, 5, "lengths"), (1024, 1, 5, 10, 1, "off")])
+def test_recurrence_fwd_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, mask):
+    """The f32 tensor-core forward past 288 (three tf32 passes) against its
+    plain twin at 1e-4 x max(1, max|ref|): D = 1, 2 and 3; G = 1, 2 and 5;
+    masks from lengths, with holes (an all-off and an all-on row) and all
+    off; T = 1; groups that leave short row tiles; up to 512 (32- or
+    48-row tiles) and past it (two unit groups a warp, 16-row tiles) to the
+    stop at 1024. The dispatch names it (its wrapper counts the launches),
+    a copy of the fragments built by the caller gives the same bits, and
+    the global-weight instance by name agrees."""
+    cd, tol = torch.float32, 1e-4
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device,
+                                            "holes" if mask == "off" else mask, seed=H + T)
+    if mask == "off":
+        valid = torch.zeros_like(valid)
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_wide_f32"
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    ref = recurrence_fwd(xg, valid, w, G, cd)
+    got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)
+    _close(got, ref, tol)
+    wf = lstm_cuda.recurrence_f32_weights(w)
+    again = lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
+           ref, tol)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+def test_recurrence_fwd_wide_f32_rejects_bad_operands_on_card(cuda_device):
+    """The f32 tensor-core forward past 288 refuses what its kernel does
+    not take, before any launch: bf16, a width up to 288, a weight of the
+    wrong dtype, a mask of the wrong shape, a fragment copy of the wrong
+    shape, an unknown kernel name, and operands that require grad."""
+    T, D, B, G, H = 3, 2, 4, 1, 320
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, "holes")
+    wrapper = lstm_cuda.lstm_recurrence_fwd_wide_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="takes compute dtype float32"):
+        wrapper(xg, valid, w.to(torch.bfloat16), G, torch.bfloat16)
+    small = recurrence_case(T, D, B, 288, G, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="from 320 to 1024"):
+        wrapper(*small[:3], G, cd)
+    with pytest.raises(ValueError, match="bilstm kernel: w"):
+        wrapper(xg, valid, w.to(torch.bfloat16), G, cd)
+    with pytest.raises(ValueError, match="valid must be"):
+        wrapper(xg, valid[:, :, :2], w, G, cd)
+    with pytest.raises(ValueError, match="wf must be a contiguous"):
+        wrapper(xg, valid, w, G, cd, lstm_cuda.recurrence_f32_weights(small[2]))
+    with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_f32")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        wrapper(xg.clone().requires_grad_(), valid, w, G, cd)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_default_backend_runs_the_op_past_288_on_card(cuda_device, dtype):
+    """Past 288 units a layer the default backend ("auto") takes the
+    recurrence op: the two-layer model at embedding 320 launches the op's
+    tensor-core kernels past 288 (in f32 the three-tf32-pass forward and
+    sweep, never the global-weight instances) and no layer kernel; its
+    gradients equal the CPU plain path's (1e-4 x max(1, max|grad|) in f32,
+    2^-7 in bf16)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dtype == torch.float32
+    wide = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32") if f32 else \
+        ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
+    wgrad = "lstm_recurrence_wgrad" if f32 else "lstm_recurrence_wgrad_mma"
+    layer = [n for n in dir(lstm_cuda) if n.startswith("bilstm_")
+             and isinstance(getattr(getattr(lstm_cuda, n), "launches", None), int)]
+    names = list(wide) + [wgrad, "lstm_recurrence_fwd", "lstm_recurrence_bwd"] + layer
+    before = {n: getattr(lstm_cuda, n).launches for n in names}
+    got = model_grads(cuda_device, dtype=dtype, embedding_size=320)
+    torch.cuda.synchronize()
+    ran = {n: getattr(lstm_cuda, n).launches - b for n, b in before.items()}
+    assert all(ran[n] == 2 for n in wide) and ran[wgrad] == 2
+    assert all(c == 0 for n, c in ran.items() if n not in wide and n != wgrad), ran
+    want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=320)
+    tol = 1e-4 if f32 else 2.0 ** -7
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
+            1.0, float(ref.abs().max())), name

@@ -19,7 +19,11 @@ unpadded layer.
 * two-layer models at embedding 48, 50, 80, 100, 112 and 272 against the
   JAX package (``utils/convert.py:from_jax_params``, dropout off): the
   forward and one train step's gradients, to the tolerance of the port's
-  other step tests (rtol 1e-4, atol 1e-5).
+  other step tests (rtol 1e-4, atol 1e-5);
+* past 288 units a layer (embedding 300 and 320, one and two layers, f32)
+  the default backend takes the recurrence op, where JAX's "auto" takes its
+  scan: the forward and one train step's gradients against JAX at 1e-4 x
+  max(1, max|ref|).
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,7 @@ import torch
 from intrepppid_tpu.models.factory import intrepppid_network as jax_network
 from intrepppid_tpu.ops.lstm_pallas_layer import pick_plan
 from intrepppid_tpu_torch.models.factory import intrepppid_network
+from intrepppid_tpu_torch.ops import lstm as port_lstm
 from intrepppid_tpu_torch.ops import lstm_cuda
 from intrepppid_tpu_torch.ops.lstm import bidir_layer, bidir_layer_bwd
 from intrepppid_tpu_torch.ops.lstm_recurrence import (
@@ -98,9 +103,11 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
     """Every layer of the grid above (H from 1 to 288 at the four shapes)
     that takes the wide route names, at its padded shape, the lite sweep it
     named before the tensor-core instance at 288: the tensor-core sweep in
-    bf16 at H = 128 and 256, the CUDA-core one in f32 and at the other bf16
-    widths; except bf16 at H = 288, which the tensor-core sweep now takes
-    (the layers of 257-288 units, embedding 272 among them)."""
+    bf16 at H = 128 and 256, the CUDA-core one at the other bf16 widths;
+    except bf16 at H = 288, which the tensor-core sweep now takes (the
+    layers of 257-288 units, embedding 272 among them), and f32 at 128, 256
+    and 288, which the f32 tensor-core sweep (three tf32 passes) takes; f32
+    at 96, 160, 192 and 224 keeps the CUDA-core one."""
     wide = set()
     for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
@@ -116,6 +123,8 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             bf16 = dtype == torch.bfloat16
             parent = "bilstm_bwd_lite_mma" if bf16 and Hp in (128, 256) else "bilstm_bwd_lite"
             want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
+            if not bf16 and Hp in (128, 256, 288):
+                want = "bilstm_bwd_lite_f32"
             assert lstm_cuda.lite_kernel(Hp, dtype) == want, (what, H, Hp)
     assert 288 in wide and 256 in wide and 96 in wide
 
@@ -179,6 +188,41 @@ def test_the_80_sweep_and_288_forward_change_no_other_plan(dtype, monkeypatch):
                                (288, (288, 288))}}
         assert sum(1 for (what, H), p in after.items()
                    if p[3][1] == "bilstm_bwd_mma" and p[1] == 80) == 2 * 15
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the f32 tensor-core lite sweep (the plans with its widths
+    emptied: ``LITE_F32_WIDTHS`` = ()), and the same kernel at every step,
+    except one: in f32 the lite sweep at Hp = 128, 256 and 288 is
+    ``bilstm_bwd_lite_f32`` where it was ``bilstm_bwd_lite``. bf16 changes
+    nothing; f32 at Hp = 96, 160, 192 and 224 keeps the CUDA-core sweep."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "LITE_F32_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys()
+    changed, kept = set(), set()
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            assert diff == {("bilstm_bwd_lite", "bilstm_bwd_lite_f32")}, key
+            changed.add(Hp)
+        elif route == "wide" and kernels[2] == "bilstm_bwd_lite":
+            kept.add(Hp)
+    if dtype == torch.bfloat16:
+        assert changed == set()
+    else:
+        assert changed == {128, 256} and kept == {96, 160, 192, 224}
+        # 288 lies past JAX's f32 plans (242): the grid's widest f32 layer
+        assert lstm_cuda.lite_kernel(288, dtype) == "bilstm_bwd_lite_f32"
 
 
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
@@ -356,3 +400,61 @@ def test_two_layer_model_matches_jax(embedding):
         got = p.grad if p.grad is not None else torch.zeros_like(p)
         np.testing.assert_allclose(got.numpy(), want[name].numpy(), atol=1e-5, rtol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("embedding", [300, 320])
+def test_model_past_288_on_the_default_backend_matches_jax(embedding, layers):
+    """Past 288 units a layer the port's default backend ("auto") runs the
+    recurrence op (``resolve_backend`` by the stack's widest layer), where
+    JAX's "auto" runs its scan: a model at embedding 300 and 320, one and
+    two layers, f32, dropout off, against JAX on the same numpy weights:
+    the eval forward's and one train step's loss and aux values, and every
+    gradient, at 1e-4 x max(1, max|ref|). The layer backend named
+    explicitly still refuses such a layer."""
+    assert port_lstm.DEFAULT_BACKEND == "auto"
+    assert port_lstm.resolve_backend("auto", embedding) == "recurrence"
+    assert port_lstm.resolve_backend("auto", 288) == "layer"
+    vocab, pairs, T = 30, 2, 6
+    kw = dict(vocab_size=vocab, embedding_size=embedding, rnn_num_layers=layers, num_epochs=5,
+              rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
+    jnet = jax_network(4, **kw)
+    params = jax.tree_util.tree_map(np.array, jnet.init(jax.random.PRNGKey(embedding + layers)))
+    net = intrepppid_network(4, device="cpu", **kw)
+    net.load_state_dict(from_jax_params(params))
+    rng = np.random.default_rng(embedding + layers)
+
+    def ids():
+        a = rng.integers(1, vocab, (pairs, T)).astype(np.int32)
+        a[1, 3:] = 0
+        return a
+
+    batch = {k: ids() for k in ("p1", "p2", "anchor", "positive", "negative")}
+    batch["label"] = np.array([1, 0], np.int32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    (jl, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jnet.step(p, jbatch, jax.random.PRNGKey(0), train=True), has_aux=True))(jp)
+
+    def close(got, want, what):
+        err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+        assert err <= 1e-4 * max(1.0, float(np.abs(np.asarray(want)).max())), (what, err)
+
+    with torch.no_grad():
+        _, eval_aux = net.step(tb, torch.Generator().manual_seed(0), train=False)
+    loss, aux = net.step(tb, torch.Generator().manual_seed(0), train=True)
+    loss.backward()
+    close(float(loss.detach()), float(jl), "loss")
+    for k, v in jaux.items():
+        close(float(aux[k]), float(v), k)
+        close(float(eval_aux[k]), float(v), f"eval {k}")
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, jgrads))
+    assert sum(n.startswith(f"encoder.lstm.{layers - 1}.") for n in want) == 4
+    for name, p in net.named_parameters():
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        close(got.numpy(), want[name].numpy(), name)
+    lp = [{k: t.detach() for k, t in layer.items()}
+          for layer in net.encoder.lstm_weights(False, 1, None)]
+    with pytest.raises(ValueError, match="no bilstm route takes this layer"):
+        port_lstm.bilstm(lp, torch.zeros(2, T, embedding), None, torch.float32, backend="layer")
