@@ -45,9 +45,9 @@ exits non-zero with no result):
    streams a direction) ``bilstm_fwd.cu`` (both variants) in f32 and
    bf16, ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last
    gate tile masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name),
-   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 and the
-   tensor-core sweep ``bilstm_bwd_mma`` (its <80, 80> instance) in bf16,
-   each in turns with ``bilstm_bwd.cu`` by name; then
+   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns
+   with ``bilstm_bwd.cu`` by name) and the tensor-core sweep
+   ``bilstm_bwd_mma`` (its <80, 80> instance) in bf16; then
    each kernel, the
    new and the old in turns (new, old, old, new, in the same run), and a
    PyTorch yardstick
@@ -70,7 +70,8 @@ exits non-zero with no result):
    ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
    stacked layer padded to H = 96 on the
-   wide route; then one step's gradients (and at embedding 80 an eval step)
+   wide route (the tensor-core gates, in f32 ``bilstm_gates_f32``, and the
+   CUDA-core forward and lite sweep); then one step's gradients (and at embedding 80 an eval step)
    on the card held against the port's CPU plain path at a small size, in
    f32 and bf16 (also at embedding 80, two layers);
 5b. widths — the layers the width repairs open (``ops/lstm_cuda.py:
@@ -84,23 +85,27 @@ exits non-zero with no result):
    two-layer model at embedding 100 and 272 at the train shape (80 pairs,
    T = 1500, dropout on: 2 steps and an eval step) in f32 and bf16 (at 272
    in bf16 the tensor-core forward and lite sweep, never the CUDA-core
-   ones; in f32 at both the f32 tensor-core lite sweep
-   ``bilstm_bwd_lite_f32``, never ``bilstm_bwd_lite.cu``), each with the
-   kernels it must launch and must not; the f32 tensor-core lite sweep on
-   layer 0 at embedding 272 (H = 288), of the scaled configuration (256)
-   and at embedding 100 (128), against its twin and in turns with
-   ``bilstm_bwd_lite.cu`` by name, at each row tile, beside its bound and
-   cuDNN; ``bilstm_bwd.cu`` in bf16 on its main path (layer 0 at embedding
-   72, E = H = 72), timed beside its bound and cuDNN;
+   ones; in f32 at both the f32 tensor-core gates, wide forward and lite
+   sweep, never the CUDA-core ones), each with the kernels it must launch
+   and must not; the f32 tensor-core lite sweep on layer 0 at embedding
+   272 (H = 288), of the scaled configuration (256) and at embedding 100
+   (128), against its twin, at each row tile, beside its bound and cuDNN;
+   the f32 tensor-core gates and wide forward (both variants) on layer 0
+   and the stacked layer at embedding 272 (288), layer 0 of the scaled
+   configuration and at embedding 100 (128), against their twins and in
+   turns with ``bilstm_gates.cu`` and ``bilstm_fwd_wide.cu`` by name,
+   beside their bounds, ``addmm`` and cuDNN, the forward at each row tile
+   in turns with the dispatch; ``bilstm_bwd_lite.cu``
+   in f32 on its main path (the stacked layer at embedding 80, H = 96)
+   beside cuDNN; ``bilstm_bwd.cu`` in bf16 on its main path (layer 0 at
+   embedding 72, E = H = 72), timed beside its bound and cuDNN;
    the CUDA-core wide forward (both variants) and lite sweep in bf16 at
-   the stacked layer at embedding 80 (run at H = 96, their main path) and
-   by name on layer 0 at embedding 272 (their 288-thread instances),
+   the stacked layer at embedding 80 (run at H = 96, their main path),
    against their twins, timed beside their bounds and cuDNN; at 288 the
    tensor-core forward (both variants) ``bilstm_fwd_wide(_train)_mma``
    and lite sweep ``bilstm_bwd_lite_mma`` (their instances for uneven
    unit groups), which the dispatch names there, against their twins and
-   each timed in turns with the 288-thread CUDA-core kernel by name (new,
-   old, old, new), the forward also at each of its row tiles; then a
+   timed, the forward also at each of its row tiles; then a
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
@@ -115,19 +120,21 @@ exits non-zero with no result):
    bf16, at H = 128 (T = 300), and the resident forward, sweep and wgrad at
    H = 32 (T = 300); in bf16 the input gates are ``bilstm_gates_mma``, the
    wide forward ``bilstm_fwd_wide(_train)_mma``, the lite sweep
-   ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 wgrad is
-   ``bilstm_wgrad_f32``, and the CUDA-core kernels, asked for by name, are
-   held too; the input gates computed twice must agree bit for bit (the
-   backward recomputes them), and so must the tensor-core forward's hs in
-   its two variants; ragged cases of the tensor-core kernels (27 rows in 3
-   groups and in 1, T = 1 and 5, every row tile of the forward and the
-   sweep; wgrad in both dtypes); then each timed with CUDA events at full
-   lengths beside its plain version and a PyTorch yardstick in the same
-   dtype (cuBLAS ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32
-   off; in bf16 the gates, the forward (both variants), the sweep and wgrad
-   new, old, old, new, and the forward and the sweep at each of their row
-   tiles; in f32 wgrad and the lite sweep (``bilstm_bwd_lite_f32``, three
-   tf32 passes) new, old, old, new;
+   ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 (three
+   tf32 passes) ``bilstm_gates_f32``, ``bilstm_fwd_wide(_train)_f32``,
+   ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``, and the CUDA-core
+   kernels, asked for by name, are held too (the lite sweep in bf16); the
+   input gates computed twice must agree bit for bit (the backward
+   recomputes them), and so must the tensor-core forwards' hs in their two
+   variants; ragged cases of the tensor-core kernels (27 rows in 3 groups
+   and in 1, T = 1 and 5, every row tile of the forward and the sweep, the
+   f32 gates and forward at 128, 256 and 288 at every row tile; wgrad
+   in both dtypes); then each timed with CUDA events at full lengths beside
+   its plain version and a PyTorch yardstick in the same dtype (cuBLAS
+   ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; the
+   gates, the forward (both variants) and wgrad new, old, old, new in both
+   dtypes, the bf16 sweep too, and in bf16 the forward and the sweep at
+   each of their row tiles;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
@@ -136,10 +143,10 @@ exits non-zero with no result):
    resident kernels or the CUDA-core gates, forward, sweep and wgrad, a
    profiled step and peak memory; then one step's gradients at embedding
    256 and 3 layers held against the CPU plain path in f32, with an eval
-   step after it (which must run ``bilstm_gates.cu`` and
-   ``bilstm_fwd_wide.cu`` in both variants: their main path, and
-   ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``) and in bf16 (which
-   must run the tensor-core ones);
+   step after it (which must run ``bilstm_gates_f32``,
+   ``bilstm_fwd_wide(_train)_f32``, ``bilstm_bwd_lite_f32`` and
+   ``bilstm_wgrad_f32``, never the CUDA-core ones) and in bf16 (which must
+   run the tensor-core ones);
 8. recurrence_kernel — the time-major recurrence op's kernels (forward,
    sweep, weight gradient) against their plain versions at T = 1500,
    D = 2, 400 rows: H = 64 with 5 weight groups and with 1, H = 256 with 5
@@ -162,14 +169,12 @@ exits non-zero with no result):
    1024 on the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``
    in bf16 and ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32) against its
    twins, the bf16 tensor-core kernels alone at H = 320, 512 and 1024 with
-   masks from lengths and with holes (2^-7 x max(1, max|ref|)) beside the
-   global-weight instance by name, the f32 tensor-core forward and sweep
-   (three tf32 passes) alone at the same widths and masks (1e-4 x max(1,
-   max|ref|)) beside the global-weight instance by name, and one call at
-   H = 512 (400 rows, T = 300) timed beside its bound and cuDNN, the
-   tensor-core kernels and the global-weight instance in turns (new, old,
-   old, new), the f32 forward at each of its row tiles, the f32 kernels'
-   bounds at 495/3 TFLOP/s beside the ones at 67;
+   masks from lengths and with holes (2^-7 x max(1, max|ref|)), the f32
+   tensor-core forward and sweep (three tf32 passes) alone at the same
+   widths and masks (1e-4 x max(1, max|ref|)), and one call at H = 512
+   (400 rows, T = 300) timed beside its bound and cuDNN, the f32 forward
+   at each of its row tiles, the f32 kernels' bounds at 495/3 TFLOP/s
+   beside the ones at 67;
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
@@ -183,9 +188,9 @@ exits non-zero with no result):
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
    one-layer model at embedding 320, timed, and the card's gradients of
    that model against the CPU's (in f32 the tensor-core forward and sweep
-   past 288, three tf32 passes, never the global-weight instances; in bf16
-   the tensor-core kernels past 288, never the global-weight instance; no
-   layer kernel);
+   past 288, three tf32 passes; in bf16 the tensor-core kernels past 288;
+   never the cluster kernels, which take up to 288 units; no layer
+   kernel);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -193,14 +198,16 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-two kernels, each with launches > 0 on a
-    main path; the 288-thread instances, the tensor-core forward and lite
-    sweep at 288, the bf16 sweep and wgrad at H = 80 and the global-weight
-    instances past 288 as ``h288_*``, ``h80_*`` and ``h512_*`` fields of
-    their kernels' entries; the bf16 op past 288, the f32 forward and
-    sweep past 288 and the f32 tensor-core lite sweep as entries of their
-    own, the last with ``h288_*`` and ``h128_*``), the card's name and
-    power limit, and the result.
+11. the ``kernels`` line (thirty-four kernels, each with launches > 0 on a
+    main path; the tensor-core forward and lite sweep at 288, the bf16
+    sweep and wgrad at H = 80 and the CUDA-core wide kernels at 96 as
+    ``h288_*``, ``h80_*`` and ``h96_*`` fields of their kernels' entries;
+    the bf16 op past 288, the f32 forward and sweep past 288, the f32
+    tensor-core lite sweep and the f32 tensor-core gates and wide forward
+    as entries of their own, the last with ``hN_*`` fields at 288, 256 and
+    128; ``bilstm_gates.cu``, which no dispatch names any more, as
+    ``cuda_core_*`` fields of the tensor-core gates' entries), the card's
+    name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -252,8 +259,12 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
+        FWD_WIDE_F32_ROWS,
+        FWD_WIDE_F32_UNEVEN_ROWS,
+        FWD_WIDE_F32_WIDTHS,
         FWD_WIDE_MMA_ROWS,
         FWD_WIDE_MMA_WIDTHS,
+        GATES_F32_SMEM,
         GATES_MMA_SMEM,
         LITE_F32_ROWS,
         LITE_F32_WIDTHS,
@@ -322,14 +333,13 @@ def phase_build() -> dict:
     for H in FWD_WIDE_MMA_WIDTHS:
         for rows in FWD_WIDE_MMA_ROWS:
             smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
-    # the 288-thread instances of the CUDA-core cluster kernels, and the
-    # recurrence kernels' global-weight instance (no weight slice in shared memory)
+    # the 288-thread instances of the CUDA-core cluster kernels (the f32
+    # wide forward by name, the recurrence op's forward and sweep)
     for kind in ("fwd", "bwd"):
         for R in WIDE_ROWS:
             if wide_smem(kind, 288, R) <= SMEM_LIMIT:
                 smem[f"{kind}_wide H=288 R={R}"] = wide_smem(kind, 288, R)
         for H in (320, 512, 1024):
-            smem[f"recurrence_{kind} H={H} R=2 (global weights)"] = wide_smem(kind, H, 2)
             # the bf16 tensor-core kernels past 288, at each row tile they take
             for rows in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
                 smem[f"recurrence_{kind}_wide_mma H={H} rows={rows}"] = \
@@ -342,6 +352,10 @@ def phase_build() -> dict:
     for H in LITE_F32_WIDTHS:
         for rows in LITE_F32_ROWS:
             smem[f"bwd_lite_f32 H={H} rows={rows}"] = wide_smem("lite_f32", H, rows)
+    smem["gates_f32"] = GATES_F32_SMEM
+    for H in FWD_WIDE_F32_WIDTHS:
+        for R in FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS:
+            smem[f"fwd_wide_f32 H={H} rows={R}"] = wide_smem("fwd_f32", H, R)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -776,7 +790,8 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 # the f32 kernels on the tensor cores: three tf32 products for each f32 one
 TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
            "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
-           "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32")
+           "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32", "bilstm_gates_f32",
+           "bilstm_fwd_wide_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -951,14 +966,14 @@ def embedding_80_kernels(dev) -> dict:
     ``bilstm_bwd_mma.cu`` (its <80, 80> instance) and
     ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H = 320). Each is
     held against its plain twin with the main path's lengths (groups at 0,
-    1 and T; ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``),
+    1 and T; in f32 ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``),
     then timed at full lengths beside the twin (timed once, in the check),
     its bound (the one-stage sweep at 495/3 TFLOP/s, the others at their
     dtype's rate), cuDNN's one-layer training forward, inference forward
     and backward for the input in the same dtype, and cuBLAS's products
-    for wgrad, TF32 off; the sweep in turns with ``bilstm_bwd.cu`` by name
-    in both dtypes and the bf16 wgrad with ``bilstm_wgrad.cu`` by name
-    (new, old, old, new). One dict per dtype and kernel: "fwd", "fwd_eval",
+    for wgrad, TF32 off; the f32 sweep in turns with ``bilstm_bwd.cu`` by
+    name and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old,
+    old, new). One dict per dtype and kernel: "fwd", "fwd_eval",
     "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
@@ -967,8 +982,7 @@ def embedding_80_kernels(dev) -> dict:
     picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("bwd", torch.float32): "bilstm_bwd", ("bwd", torch.bfloat16): "bilstm_bwd",
-               ("wgrad", torch.bfloat16): "bilstm_wgrad"}
+    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -1031,8 +1045,9 @@ def embedding_80_kernels(dev) -> dict:
                                for n, a, b in zip(gnames, flat(calls["bwd"]()), flat(ref))},
                        "wgrad": {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
                            ("dW_ih", "dW_hh"), calls["wgrad"](), ref_w)}}
-                res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
-                    gnames, flat(old["bwd"]()), flat(ref))})
+                if f32:
+                    res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
+                                       for n, a, b in zip(gnames, flat(old["bwd"]()), flat(ref))})
                 out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                     flat(calls["bwd"]()), flat(ref)))
                 if not f32:
@@ -1273,7 +1288,10 @@ def train_counters():
             "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma,
             "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32,
             "lstm_recurrence_fwd_wide_f32": L.lstm_recurrence_fwd_wide_f32,
-            "bilstm_bwd_lite_f32": L.bilstm_bwd_lite_f32}
+            "bilstm_bwd_lite_f32": L.bilstm_bwd_lite_f32,
+            "bilstm_gates_f32": L.bilstm_gates_f32,
+            "bilstm_fwd_wide_train_f32": L.bilstm_fwd_wide_train_f32,
+            "bilstm_fwd_wide_f32": L.bilstm_fwd_wide_f32}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1335,16 +1353,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # bilstm_wgrad_mma.cu (the masked gate tile) in bf16, its sweep the
     # one-stage 3xTF32 kernel in f32 and the tensor-core bilstm_bwd_mma.cu
     # in bf16, never bilstm_bwd.cu; the stacked layer (E = 2 x 80) runs
-    # padded to H = 96 on the wide route
+    # padded to H = 96 on the wide route: the tensor-core input gates (in
+    # f32 bilstm_gates_f32), the CUDA-core forward and lite sweep
     e80 = {}
     for dtype, expect, never in (
-        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates", "bilstm_wgrad_f32",
+        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_wgrad_f32",
                          "bilstm_wgrad"),
-         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
-          "bilstm_wgrad_mma")),
+         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma", "bilstm_gates",
+          "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32")),
         (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_gates_mma", "bilstm_wgrad_mma"),
-         ("bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates", "bilstm_wgrad_f32",
-          "bilstm_wgrad")),
+         ("bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates", "bilstm_gates_f32",
+          "bilstm_wgrad_f32", "bilstm_wgrad")),
     ):
         e80[str(dtype).replace("torch.", "")] = f32_steps(
             dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
@@ -1358,7 +1377,8 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
         embedding_size=80)
         for dtype, expect in (
             (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_layer_fwd", "bilstm_bwd_lite",
-                             "bilstm_fwd_wide", "bilstm_wgrad_f32", "bilstm_wgrad")),
+                             "bilstm_fwd_wide", "bilstm_gates_f32", "bilstm_wgrad_f32",
+                             "bilstm_wgrad")),
             (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_bwd_lite",
                               "bilstm_fwd_wide", "bilstm_wgrad_mma")))}
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -1414,7 +1434,7 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                         "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
-                        "lstm_recurrence_fwd_wide_f32_kernel"),
+                        "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
                           "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
@@ -1509,20 +1529,23 @@ RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
 # its padded shape: the stacked layer at embedding 80 (96, wide), layer 0
 # and the stacked layer at embedding 112 (128, wide), layer 0 at embedding
 # 50 (H 64, E 56 in f32 and 64 in bf16, resident), both layers at embedding
-# 100 (H 128, parts of 112, wide) and at 272 (288, wide: the 288-thread
-# CUDA-core wide kernels in f32, in bf16 the tensor-core forward and sweep,
-# their instances for uneven unit groups)
+# 100 (H 128, parts of 112, wide) and at 272 (288, wide: the tensor-core
+# kernels in both dtypes, in bf16 the forward's and sweep's instances for
+# uneven unit groups)
 PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 112, G_TRAIN),
                  (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
                  (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
 # the wide route's kernels at 128, 256 and 288, by dtype (the tensor-core
-# ones; in f32 the lite sweep's three tf32 passes, the CUDA-core gates and
-# forward); at 96 both dtypes keep the CUDA-core forward and sweep
+# ones; in f32 three tf32 passes a product); at 96 both dtypes keep the
+# CUDA-core forward and sweep; the CUDA-core gates, forward and sweep no
+# wide layer at these widths may launch
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
-WIDE_F32 = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
-            "bilstm_wgrad_f32")
+WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
+            "bilstm_bwd_lite_f32", "bilstm_wgrad_f32")
+WIDE_CUDA_CORE = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
+                  "bilstm_wgrad")
 WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
@@ -1637,28 +1660,26 @@ def padded_layer_timings(dev) -> list:
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
                            seed=SEED + 50, fwd_want="bilstm_fwd_wide_mma",
                            lite_want="bilstm_bwd_lite_mma") -> dict:
-    """The CUDA-core wide forward (both variants) and lite sweep in bf16 at
-    their main paths' shapes or, where a tensor-core kernel took the width,
-    by name on that path's operands: by default layer 0 of the bf16
-    two-layer model at embedding 272 (E = 272, run at H = 288: their
-    288-thread instances, 5 weight groups, two dy streams a direction), and
+    """The bf16 wide forward (both variants) and lite sweep the dispatch
+    names on a main path: by default layer 0 of the bf16 two-layer model at
+    embedding 272 (E = 272, run at H = 288, 5 weight groups, two dy streams
+    a direction: the tensor-core ``bilstm_fwd_wide_mma`` and
+    ``bilstm_bwd_lite_mma``, their instances for uneven unit groups), and
     (``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96) the stacked
-    layer of the bf16 two-layer model at embedding 80; 400 rows, T = 1500,
-    the input gates from ``bilstm_gates_mma``. The forward and the sweep
-    the dispatch names must be ``fwd_want`` and ``lite_want``: at 288 the
-    tensor-core ``bilstm_fwd_wide_mma`` and ``bilstm_bwd_lite_mma`` (their
-    instances for uneven unit groups), which are then held and timed too
-    ("fwd_mma", "fwd_eval_mma", "lite_mma"), each in turns with the
-    CUDA-core kernel by name (new, old, old, new); at 96 the CUDA-core
-    ones. Each held against its plain twin with the main path's lengths
-    (the tolerance ``TOL``; the tensor-core forward's two variants must give
-    the same hs bits), then timed at full lengths beside the twin (timed
-    once, in the check), its bound at the bf16 rate at the padded H (the
-    kernel's own work) and at the true H, and cuDNN's one-layer bf16
-    training forward, inference forward and backward for the input at the
-    true widths, TF32 off. One dict per kernel: "fwd", "fwd_eval", "lite"
-    (the CUDA-core ones, by name) and at 288 the tensor-core ones, with
-    their row tile, tiles and the clusters the card holds at once."""
+    layer of the bf16 two-layer model at embedding 80 (the CUDA-core
+    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``); 400 rows, T = 1500,
+    the input gates from ``bilstm_gates_mma``. The forward and the sweep the
+    dispatch names must be ``fwd_want`` and ``lite_want``. Each held against
+    its plain twin with the main path's lengths (the tolerance ``TOL``; the
+    tensor-core forward's two variants must give the same hs bits), then
+    timed at full lengths beside the twin (timed once, in the check), its
+    bound at the bf16 rate at the padded H (the kernel's own work) and at
+    the true H, and cuDNN's one-layer bf16 training forward, inference
+    forward and backward for the input at the true widths, TF32 off; the
+    tensor-core forward also at each of its row tiles. One dict per kernel:
+    "fwd", "fwd_eval", "lite" (the CUDA-core ones) or "fwd_mma",
+    "fwd_eval_mma", "lite_mma" (the tensor-core ones, with their row tile,
+    tiles and the clusters the card holds at once)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
@@ -1668,83 +1689,62 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
     if picked != (Hp_want, fwd_want, lite_want):
         raise AssertionError(f"the layer at E={E_parts}, H={H} in bf16 runs {picked}")
-    # the tensor-core kernel of each CUDA-core one, where the dispatch names it
-    mma = {k: f"{k}_mma" for k, want in (("fwd", fwd_want), ("fwd_eval", fwd_want),
-                                          ("lite", lite_want)) if want.endswith("_mma")}
+    mma = fwd_want.endswith("_mma")
+    sfx = "_mma" if mma else ""
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
              "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
-    out = {k: {"kernel": name, **shape} for k, name in (
-        ("fwd", "bilstm_fwd_wide (train)"), ("fwd_eval", "bilstm_fwd_wide (eval)"),
-        ("lite", "bilstm_bwd_lite"), ("fwd_mma", "bilstm_fwd_wide_mma (train)"),
-        ("fwd_eval_mma", "bilstm_fwd_wide_mma (eval)"), ("lite_mma", "bilstm_bwd_lite_mma"))
-        if not k.endswith("_mma") or k in mma.values()}
+    out = {k + sfx: {"kernel": name, **shape} for k, name in (
+        ("fwd", f"{fwd_want} (train)"), ("fwd_eval", f"{fwd_want} (eval)"), ("lite", lite_want))}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
         xg = L.bilstm_gates(parts, w_ih, bias, cd)
-        calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
-                                                        kernel="bilstm_fwd_wide"),
-                 "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,
-                                                       kernel="bilstm_fwd_wide"),
-                 "fwd_mma": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                 "fwd_eval_mma": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
+        calls = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                 "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)}
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
-        calls["lite"] = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
-        calls["lite_mma"] = lambda: L.bilstm_bwd_lite(*args)
-        calls = {k: v for k, v in calls.items() if k in out}
+        calls["lite"] = lambda: L.bilstm_bwd_lite(*args)
         if full:
             for k, call in calls.items():
-                if k not in mma and k not in mma.values():
-                    out[k]["ms"] = time_ms(call, 3)
-            for k, k_mma in mma.items():
-                # new, old, old, new: the tensor-core kernel and the CUDA-core one
-                out[k_mma]["ms"], out[k_mma]["ms_again"], out[k]["ms"] = in_turns(
-                    calls[k_mma], calls[k], 3)
-                out[k_mma]["cuda_core_ms"] = out[k]["ms"]
-                kind, lib = ("lite_mma", "bilstm_bwd_lite_mma") if k == "lite" else (
-                    "fwd_mma", "bilstm_fwd_wide_mma")
-                out[k_mma]["rows"], out[k_mma]["tiles"], _ = L.wide_plan(
-                    kind, B_TRAIN, G, Hp, L._max_clusters(lib, cd, Hp, dev))
-                out[k_mma]["max_active_clusters"] = {
-                    f"rows={c[3]}": v for c, v in L._cluster_counts.items()
-                    if c[0] == lib and c[2] == Hp}
-            if "fwd_mma" in out:
+                out[k + sfx]["ms"] = time_ms(call, 3)
+            if mma:
+                for k, kind, lib in (("fwd", "fwd_mma", "bilstm_fwd_wide_mma"),
+                                     ("lite", "lite_mma", "bilstm_bwd_lite_mma")):
+                    out[k + sfx]["rows"], out[k + sfx]["tiles"], _ = L.wide_plan(
+                        kind, B_TRAIN, G, Hp, L._max_clusters(lib, cd, Hp, dev))
+                    out[k + sfx]["max_active_clusters"] = {
+                        f"rows={c[3]}": v for c, v in L._cluster_counts.items()
+                        if c[0] == lib and c[2] == Hp}
                 # the train variant at each row tile its instance for
                 # uneven groups is built for
                 keep = L.FWD_WIDE_MMA_UNEVEN_ROWS
                 try:
                     for R in keep:
                         L.FWD_WIDE_MMA_UNEVEN_ROWS = (R,)
-                        out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd_mma"], 3)
+                        out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd"], 3)
                 finally:
                     L.FWD_WIDE_MMA_UNEVEN_ROWS = keep
         else:
-            want, out["fwd"]["plain_ms"] = timed_once(
+            want, out["fwd" + sfx]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
-            _, out["fwd_eval"]["plain_ms"] = timed_once(
+            _, out["fwd_eval" + sfx]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd))
-            ref, out["lite"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
-            res = {}
-            for k in calls:
-                if k.startswith("lite"):
-                    res[k] = {"dgates": rel_err(calls[k](), ref, TOL[cd])}
-                else:
-                    res[k] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, calls[k](), want)}
-            for k, k_mma in mma.items():
-                out[k_mma]["plain_ms"] = out[k]["plain_ms"]
-            if "fwd_mma" in mma.values():
-                train, ev = calls["fwd_mma"](), calls["fwd_eval_mma"]()
-                if not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
-                    raise AssertionError("the tensor-core wide forward's two variants differ")
-                del train, ev
+            ref, out["lite" + sfx]["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
+            res = {"lite": {"dgates": rel_err(calls["lite"](), ref, TOL[cd])}}
+            train, ev = calls["fwd"](), calls["fwd_eval"]()
+            res["fwd"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, train, want)}
+            res["fwd_eval"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, ev, want)}
+            if mma and not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
+                raise AssertionError("the tensor-core wide forward's two variants differ")
+            del train, ev
             torch.cuda.synchronize()
             for k, r in res.items():
-                out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
+                out[k + sfx]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
                 if not all(ok for _, ok in r.values()):
-                    emit({"phase": "widths", "failed": out[k]})
-                    raise AssertionError(f"{out[k]['kernel']} disagrees with its twin: {out[k]}")
+                    emit({"phase": "widths", "failed": out[k + sfx]})
+                    raise AssertionError(f"{out[k + sfx]['kernel']} disagrees with its twin: "
+                                         f"{out[k + sfx]}")
             del want, ref, res
         del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls
     for key, Hw in (("", Hp), ("true_", H)):
@@ -1771,13 +1771,12 @@ def lite_f32_kernels(dev, G=G_TRAIN, ny=2) -> dict:
     """The f32 tensor-core lite sweep ``bilstm_bwd_lite_f32.cu`` (three
     tf32 passes) at each of ``LITE_F32_LAYERS``, 400 rows in 5 weight
     groups, two dy streams a direction, the input gates from
-    ``bilstm_gates`` and the streams from ``bilstm_fwd_wide_train``: held
-    against its plain twin with the main path's lengths at T = 300 (1e-4 x
-    max(1, max|ref|); ``bilstm_bwd_lite.cu`` by name too), then timed at
-    T = 1500, full lengths, in turns with ``bilstm_bwd_lite.cu`` by name
-    (new, old, old, new), at each row tile it is built for, beside its
+    ``bilstm_gates`` and the streams from ``bilstm_fwd_wide_train`` (both
+    on their f32 tensor-core kernels): held against its plain twin with the
+    main path's lengths at T = 300 (1e-4 x max(1, max|ref|)), then timed at
+    T = 1500, full lengths, at each row tile it is built for, beside its
     bound at 495/3 TFLOP/s at the padded H and the true H (the CUDA-core
-    kernel's at 67), the twin (timed once, in the check) and cuDNN's
+    rate's at 67), the twin (timed once, in the check) and cuDNN's
     one-layer f32 backward for the input at the true widths, TF32 off; its
     plan's row tile and the clusters the card holds at once."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -1800,9 +1799,8 @@ def lite_f32_kernels(dev, G=G_TRAIN, ny=2) -> dict:
             hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
             args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
             new = lambda: L.bilstm_bwd_lite(*args)  # noqa: E731
-            old = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")  # noqa: E731
             if full:
-                row["ms"], row["ms_again"], row["cuda_core_ms"] = in_turns(new, old, 3)
+                row["ms"] = time_ms(new, 3)
                 keep = L.LITE_F32_ROWS
                 try:
                     for R in keep:
@@ -1818,8 +1816,7 @@ def lite_f32_kernels(dev, G=G_TRAIN, ny=2) -> dict:
             else:
                 ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
                 got = new()
-                res = {"dgates": rel_err(got, ref, TOL[cd]),
-                       "cuda_core_dgates": rel_err(old(), ref, TOL[cd])}
+                res = {"dgates": rel_err(got, ref, TOL[cd])}
                 row["scaled_err"] = scaled_err(got, ref)
                 torch.cuda.synchronize()
                 row["max_abs_err"] = {n: e for n, (e, _) in res.items()}
@@ -1837,6 +1834,196 @@ def lite_f32_kernels(dev, G=G_TRAIN, ny=2) -> dict:
                                               layers=1)["cudnn_bwd_data_ms"]
         out[f"h{Hp}"] = row
     return out
+
+
+# the f32 tensor-core input gates' and wide forward's main paths (E parts,
+# H, weight groups, the model): layer 0 and the stacked layer of the f32
+# two-layer model at embedding 272 (run at H = 288), layer 0 of the scaled
+# configuration, and layer 0 at embedding 100 (at H = 128, parts of 112)
+WIDE_F32_LAYERS = ((288, [272], 272, G_TRAIN, "layer 0 at embedding 272"),
+                   (288, [272, 272], 272, 1, "stacked layer at embedding 272"),
+                   (256, [256], 256, G_TRAIN, "layer 0 of the scaled configuration"),
+                   (128, [100], 100, G_TRAIN, "layer 0 at embedding 100"))
+
+
+def at_f32_rows(L, R, fn, *args):
+    """``fn(*args)`` with the f32 tensor-core forward's plan held to row
+    tiles of ``R``."""
+    keep = L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_UNEVEN_ROWS
+    L.FWD_WIDE_F32_ROWS = L.FWD_WIDE_F32_UNEVEN_ROWS = (R,)
+    try:
+        return fn(*args)
+    finally:
+        L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_UNEVEN_ROWS = keep
+
+
+def wide_f32_kernels(dev, ny=2) -> dict:
+    """The f32 tensor-core input gates ``bilstm_gates_f32.cu`` and wide
+    forward ``bilstm_fwd_wide_f32.cu`` (both variants; three tf32 passes a
+    product) at each of ``WIDE_F32_LAYERS``, 400 rows: held against their
+    plain twins with the main path's lengths at T = 300 (1e-4 x max(1,
+    max|ref|); the gates computed twice must agree bit for bit, the eval and
+    train hs too; the forward at every row tile it is built for;
+    ``bilstm_gates.cu`` and ``bilstm_fwd_wide.cu`` by name too), then
+    timed at T = 1500, full lengths, each in turns with the CUDA-core kernel
+    by name (new, old, old, new), beside its bound at 495/3 TFLOP/s at the
+    padded widths and at the true ones (the CUDA-core kernel's at 67), the
+    twin (timed once, in the check) and one PyTorch call at the true widths,
+    TF32 off: cuBLAS ``addmm`` for the gates (both directions in one call),
+    cuDNN's one-layer f32 training and inference forward for the forward
+    (which does the input projection too). The forward at each row tile,
+    each timed in turns with the dispatch (new, other, other, new); its
+    plan's row tile and the clusters the card holds at once."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_recurrence, input_gates
+
+    cd = torch.float32
+    out = {}
+    for Hp_want, E_parts, H, G, what in WIDE_F32_LAYERS:
+        Hp, Ep = L.padded_width(E_parts, H, cd), list(L.padded_parts(E_parts, H, cd))
+        picked = (Hp, L.gates_kernel(Ep, Hp, cd), L.wide_fwd_kernel(Hp, cd))
+        if picked != (Hp_want, "bilstm_gates_f32", "bilstm_fwd_wide_f32"):
+            raise AssertionError(f"{what} in f32 runs {picked}")
+        row = {"layer": what, "B": B_TRAIN, "T": T_TRAIN, "check_T": 300, "E_parts": E_parts,
+               "H": H, "padded_H": Hp, "padded_parts": Ep, "G": G,
+               "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        row_tiles = L.FWD_WIDE_F32_ROWS if Hp % 64 == 0 else L.FWD_WIDE_F32_UNEVEN_ROWS
+
+        for full in (False, True):
+            parts, lengths, w_ih, w_hh, bias, _, _, _, _ = train_layer_inputs(
+                Ep, Hp, G, cd, dev, SEED + 70 + Hp + len(Ep), full_lengths=full, ny=ny,
+                T=T_TRAIN if full else 300)
+            gates = lambda: L.bilstm_gates(parts, w_ih, bias, cd)  # noqa: E731
+            gates_old = lambda: L.bilstm_gates(parts, w_ih, bias, cd,  # noqa: E731
+                                               kernel="bilstm_gates")
+            xg = gates()
+            fwd = lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)  # noqa: E731
+            fwd_old = lambda: L.bilstm_fwd_wide_train(  # noqa: E731
+                xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
+            ev = lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)  # noqa: E731
+            ev_old = lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,  # noqa: E731
+                                               kernel="bilstm_fwd_wide")
+            if full:
+                row["gates_ms"], row["gates_ms_again"], row["gates_cuda_core_ms"] = in_turns(
+                    gates, gates_old, 3)
+                row["fwd_ms"], row["fwd_ms_again"], row["fwd_cuda_core_ms"] = in_turns(
+                    fwd, fwd_old, 3)
+                row["fwd_eval_ms"], row["fwd_eval_ms_again"], row["fwd_eval_cuda_core_ms"] = \
+                    in_turns(ev, ev_old, 3)
+                for R in row_tiles:
+                    d0, d1, o = in_turns(fwd, lambda: at_f32_rows(
+                        L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh, cd), 2)
+                    row[f"fwd_rows{R}_ms"] = o
+                    row[f"fwd_rows{R}_dispatch_ms"] = 0.5 * (d0 + d1)
+                x = torch.cat(parts, dim=-1).reshape(T_TRAIN * B_TRAIN, -1)
+                w_t, b = w_ih.reshape(8 * Hp, -1).t(), bias.reshape(-1)
+                row["gates_library_ms"] = time_ms(lambda: torch.addmm(b, x, w_t), 3)
+                del x, w_t
+                # the f32 fragment copy of W_hh^T that the forward and the lite
+                # sweep each build a call
+                row["f32_copy_ms"] = time_ms(
+                    lambda: L.recurrence_f32_weights(w_hh.transpose(-1, -2)), 10)
+                row["fwd_rows"], row["fwd_tiles"], row["fwd_smem"] = L.wide_plan(
+                    "fwd_f32", B_TRAIN, G, Hp, L._max_clusters(
+                        "bilstm_fwd_wide_f32", cd, Hp, dev))
+                row["max_active_clusters"] = {
+                    f"rows={c[3]}": v for c, v in L._cluster_counts.items()
+                    if c[0] == "bilstm_fwd_wide_f32" and c[2] == Hp}
+            else:
+                ref, row["gates_plain_ms"] = timed_once(
+                    lambda: input_gates(parts, w_ih, bias, cd))
+                want, row["fwd_plain_ms"] = timed_once(
+                    lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
+                _, row["fwd_eval_plain_ms"] = timed_once(
+                    lambda: bidir_recurrence(xg, lengths, w_hh, cd))
+                names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+                res = {"xg": rel_err(xg, ref, TOL[cd]),
+                       "cuda_core_xg": rel_err(gates_old(), ref, TOL[cd])}
+                again = gates()
+                res["xg_recompute_vs_first"] = (float((again - xg).abs().max()),
+                                                bool(torch.equal(again, xg)))
+                got, got_ev = fwd(), ev()
+                res.update({f"train_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, got, want)})
+                res.update({f"eval_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, got_ev, want)})
+                res["eval_vs_train_hs"] = (
+                    max(float((a - b).abs().max()) for a, b in zip(got_ev[:2], got[:2])),
+                    all(torch.equal(a, b) for a, b in zip(got_ev[:2], got[:2])))
+                row["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got, want))
+                row["gates_scaled_err"] = scaled_err(xg, ref)
+                res.update({f"cuda_core_train_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, fwd_old(), want)})
+                for R in row_tiles:
+                    res.update({f"fwd_rows{R}_{n}": rel_err(a, b, TOL[cd])
+                                for n, a, b in zip(names, at_f32_rows(
+                                    L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh,
+                                    cd), want)})
+                torch.cuda.synchronize()
+                row["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+                if not all(ok for _, ok in res.values()):
+                    emit({"phase": "widths", "failed": row})
+                    raise AssertionError(f"an f32 wide kernel disagrees with its twin: {row}")
+                del ref, want, got, got_ev, again
+            del parts, xg, w_ih, w_hh
+        work, true_work = (wide_layer_work(sum(e), h, G, 4, ny) for e, h in ((Ep, Hp),
+                                                                             (E_parts, H)))
+        for k, name in (("gates", "bilstm_gates_f32"), ("fwd", "bilstm_fwd_wide_f32"),
+                        ("fwd_eval", "bilstm_fwd_wide_f32")):
+            row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
+            row[f"{k}_true_bound_ms"], _ = bound([(*true_work[k], kernel_peak(cd, name))])
+            row[f"{k}_cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
+        lib = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H, layers=1)
+        row["fwd_library_ms"], row["fwd_eval_library_ms"] = (lib["cudnn_fwd_ms"],
+                                                            lib["cudnn_inference_ms"])
+        out[f"h{Hp}" + ("_stacked" if len(Ep) == 2 else "")] = row
+    return out
+
+
+def lite_f32_96(dev) -> dict:
+    """``bilstm_bwd_lite.cu`` in f32 on its main path: the stacked layer of
+    the f32 two-layer model at embedding 80 (E = 2 x 80, run at H = 96,
+    one weight group, one dy stream a direction), 400 rows: held against
+    its plain twin with the main path's lengths at T = 300 (1e-4 x max(1,
+    max|ref|)), then timed at T = 1500, full lengths, beside its bound at
+    67 TFLOP/s at the padded and the true widths, the twin (timed once) and
+    cuDNN's one-layer f32 backward for the input at the true widths, TF32
+    off."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite
+
+    cd, E_parts, H, G, ny = torch.float32, [80, 80], 80, 1, 1
+    Hp, Ep = L.padded_width(E_parts, H, cd), list(L.padded_parts(E_parts, H, cd))
+    if (Hp, L.lite_kernel(Hp, cd)) != (96, "bilstm_bwd_lite"):
+        raise AssertionError(f"the stacked layer at embedding 80 in f32 runs at H={Hp} on "
+                             f"{L.lite_kernel(Hp, cd)}")
+    row = {"layer": "stacked layer at embedding 80", "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
+           "E_parts": E_parts, "H": H, "padded_H": Hp, "padded_parts": Ep, "G": G, "ny": ny,
+           "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    for full in (False, True):
+        parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
+            Ep, Hp, G, cd, dev, SEED + 96, full_lengths=full, ny=ny, T=T_TRAIN if full else 300)
+        xg = L.bilstm_gates(parts, w_ih, bias, cd)
+        hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+        args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+        if full:
+            row["ms"] = time_ms(lambda: L.bilstm_bwd_lite(*args), 3)
+        else:
+            ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
+            e, ok = rel_err(L.bilstm_bwd_lite(*args), ref, TOL[cd])
+            torch.cuda.synchronize()
+            row["max_abs_err"] = e
+            if not ok:
+                emit({"phase": "widths", "failed": row})
+                raise AssertionError(f"bilstm_bwd_lite.cu at H = 96 in f32 disagrees: {row}")
+            del ref
+        del parts, xg, hs_f, hs_b, cs_f, cs_b, args
+    for key, Hw, Ew in (("", Hp, sum(Ep)), ("true_", H, sum(E_parts))):
+        row[f"{key}bound_ms"], row[f"{key}bound_by"] = bound(
+            [(*wide_layer_work(Ew, Hw, G, 4, ny)["lite"], PEAK_F32_FLOPS)])
+    row["library_ms"] = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H,
+                                          layers=1)["cudnn_bwd_data_ms"]
+    return row
 
 
 def bwd_72_kernel(dev, G=G_TRAIN, ny=2) -> dict:
@@ -1891,13 +2078,16 @@ def phase_widths(dev) -> dict:
     not, on the card: ``padded_layer_timings``; the two-layer model at
     embedding 100 and 272 at the train shape (80 pairs, T = 1500, dropout
     on, 2 steps and an eval step) in f32 and bf16 (their steps timed), each
-    with the kernels it launched (in f32 the tensor-core lite sweep, never
-    ``bilstm_bwd_lite.cu``); ``lite_f32_kernels`` (the f32 tensor-core lite
-    sweep at 288, 256 and 128 in turns with ``bilstm_bwd_lite.cu``);
-    ``bwd_72_kernel`` (``bilstm_bwd.cu`` on its main path);
-    ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, with the
-    tensor-core forward and lite sweep) and at embedding 80's stacked layer
-    (H = 96);
+    with the kernels it launched (in f32 the tensor-core gates, wide
+    forward and lite sweep, never the CUDA-core ones); ``lite_f32_kernels``
+    (the f32 tensor-core lite sweep at 288, 256 and 128);
+    ``wide_f32_kernels`` (the f32 tensor-core gates and wide forward there,
+    in turns with the CUDA-core ones by name); ``lite_f32_96``
+    (``bilstm_bwd_lite.cu`` in f32 on its main path); ``bwd_72_kernel``
+    (``bilstm_bwd.cu`` on its main path); ``wide_cuda_core_kernels`` at
+    embedding 272's layer 0 (H = 288, the bf16 tensor-core forward and lite
+    sweep) and at embedding 80's stacked layer (H = 96, the CUDA-core
+    ones);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -1916,11 +2106,12 @@ def phase_widths(dev) -> dict:
                                       ("embedding_272_bfloat16", torch.bfloat16, 272,
                                        WIDE_288_BF16),
                                       ("embedding_272_float32", torch.float32, 272, WIDE_F32)):
-        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16
-                     + ("bilstm_wgrad", "bilstm_bwd_lite")) - set(expect)
+        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + WIDE_CUDA_CORE) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
     lite_f32 = lite_f32_kernels(dev)
+    wide_f32 = wide_f32_kernels(dev)
+    lite_96 = lite_f32_96(dev)
     bwd_72 = bwd_72_kernel(dev)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
@@ -1935,7 +2126,7 @@ def phase_widths(dev) -> dict:
             lstm.DEFAULT_BACKEND = "auto"
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
-           "lite_f32": lite_f32, "bwd_72": bwd_72,
+           "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96, "bwd_72": bwd_72,
            "kernels_288": kernels_288, "kernels_96": kernels_96, "grad_checks": steps}
     emit(out)
     return out
@@ -1985,10 +2176,10 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     again = L.bilstm_gates(parts, w_ih, bias, dtype)
     res["xg_recompute_vs_first"] = (float((again - xg).abs().max()), bool(torch.equal(again, xg)))
     del again
-    if dtype == torch.bfloat16:
-        # the dispatch took the tensor-core gates; the CUDA-core kernel by name
-        res["cuda_core_xg"] = rel_err(
-            L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates"), ref, tol)
+    # the dispatch took the tensor-core gates (bf16, or 3xTF32 in f32); the
+    # CUDA-core kernel by name
+    res["cuda_core_xg"] = rel_err(
+        L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates"), ref, tol)
     del ref
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
@@ -1996,9 +2187,9 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     res.update({f"train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
     ev = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype)
     res.update({f"eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, ev, want)})
-    if L.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma":
-        # the dispatch took the tensor-core forward: both variants give the
-        # same hs bits; the CUDA-core kernel by name
+    if L.wide_fwd_kernel(H, dtype) in ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32"):
+        # the dispatch took a tensor-core forward (bf16, or 3xTF32 in f32):
+        # both variants give the same hs bits; the CUDA-core kernel by name
         res["eval_vs_train_hs"] = (
             max(float((a.float() - b.float()).abs().max()) for a, b in zip(ev[:2], got[:2])),
             all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
@@ -2255,6 +2446,59 @@ def ragged_wide_sweep_check(dev, H=E_SCALED) -> list:
     return out
 
 
+def ragged_wide_f32_check(dev) -> list:
+    """The f32 tensor-core input gates and wide forward (both variants, at
+    every row tile it is built for) against their twins
+    where no size is round: H = 128, 256 and 288, 27 rows in 3 weight groups
+    of 9 (one input part) and in 1 group (two parts), T = 1 and 5, lengths
+    mixing 0, 1 and T, 1e-4 x max(1, max|ref|); the gates computed twice and
+    the forward's two variants give the same bits."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_recurrence, input_gates
+
+    cd, B, out = torch.float32, 27, []
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    for H in L.FWD_WIDE_F32_WIDTHS:
+        for i, (E_parts, G, T) in enumerate((([H], 3, 1), ([H, H], 1, 1), ([H], 3, 5),
+                                             ([H, H], 1, 5))):
+            g = torch.Generator(device=dev).manual_seed(SEED + 110 + 7 * H + i)
+
+            def u(*shape):
+                return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+            parts = tuple(u(T, B, e) for e in E_parts)
+            w_ih = u(2, 4 * H, sum(E_parts)) * H ** -0.5
+            w_hh = u(2, G, 4 * H, H) * H ** -0.5
+            bias = u(2, 4 * H)
+            lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+            lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+            xg = L.bilstm_gates_f32(parts, w_ih, bias, cd)
+            res = {"xg": rel_err(xg, input_gates(parts, w_ih, bias, cd), TOL[cd]),
+                   "xg_twice": (0.0, bool(torch.equal(xg, L.bilstm_gates_f32(parts, w_ih, bias,
+                                                                             cd))))}
+            want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+            for R in L.FWD_WIDE_F32_ROWS if H % 64 == 0 else L.FWD_WIDE_F32_UNEVEN_ROWS:
+                got = at_f32_rows(L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh, cd)
+                ev = at_f32_rows(L, R, L.bilstm_fwd_wide_f32, xg, lengths, w_hh, cd)
+                res.update({f"fwd_rows{R}_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, got, want)})
+                res.update({f"fwd_eval_rows{R}_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, ev, want)})
+                res[f"fwd_rows{R}_eval_vs_train_hs"] = (
+                    max(float((a - b).abs().max()) for a, b in zip(ev[:2], got[:2])),
+                    all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
+            torch.cuda.synchronize()
+            check = {"kernels": ["bilstm_gates_f32", "bilstm_fwd_wide_f32"], "B": B, "G": G,
+                     "T": T, "H": H, "E_parts": E_parts, "dtype": "float32",
+                     "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+            out.append(check)
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "wide_kernel", "failed": check})
+                raise AssertionError(f"a ragged f32 wide kernel disagrees with its twin: {check}")
+    return out
+
+
 def phase_wide_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import (
@@ -2290,7 +2534,8 @@ def phase_wide_kernel(dev) -> dict:
                 emit({"phase": "wide_kernel", "failed": check})
                 raise AssertionError(f"a {route}-route kernel disagrees with its twin: {check}")
 
-    ragged = ragged_wide_wgrad_check(dev) + ragged_wide_sweep_check(dev)
+    ragged = (ragged_wide_wgrad_check(dev) + ragged_wide_sweep_check(dev)
+              + ragged_wide_f32_check(dev))
 
     # times at full lengths, summed over layer 0 and one stacked layer
     timings = {}
@@ -2313,25 +2558,22 @@ def phase_wide_kernel(dev) -> dict:
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
             # new, old, old, new: a tensor-core kernel and the CUDA-core one
-            # by name, on the same operands; in bf16 every kernel, in f32
-            # wgrad and the lite sweep
+            # by name, on the same operands: every kernel (the lite sweep in
+            # bf16; in f32 it is timed alone, its CUDA-core kernel no longer
+            # taking 256 units in f32)
             turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
                       lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")),
-                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
-                      lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite"))]
+                     ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
+                      lambda: L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")),
+                     ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
+                      lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
+                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
+                      lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide"))]
             if bf16:
-                turns += [
-                    ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
-                     lambda: L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")),
-                    ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
-                     lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
-                    ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
-                     lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide")),
-                ]
+                turns.append(("lite", lambda: L.bilstm_bwd_lite(*lite_args),
+                              lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite")))
             else:
-                add("gates_ms", time_ms(lambda: L.bilstm_gates(parts, w_ih, bias, dtype), 3))
-                add("fwd_ms", time_ms(lambda: L.bilstm_fwd_wide_train(*fwd_args), 3))
-                add("fwd_eval_ms", time_ms(lambda: L.bilstm_fwd_wide(*fwd_args), 3))
+                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
             for key, new, old in turns:
                 a, b, c = in_turns(new, old, 3)
                 add(f"{key}_ms", a)
@@ -2411,13 +2653,16 @@ def phase_wide_kernel(dev) -> dict:
                 work[k][0] += f
                 work[k][1] += b
             del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args, fwd_args, turns
-        # the f32 wgrad and lite sweep run three tf32 products for each f32
+        # the f32 tensor-core kernels run three tf32 products for each f32
         # one; the CUDA-core kernels' bounds at the f32 rate beside them
         add_bounds(t, work, dtype, None if bf16 else {
             "wgrad": kernel_peak(dtype, "bilstm_wgrad_f32"),
-            "lite": kernel_peak(dtype, "bilstm_bwd_lite_f32")})
+            "lite": kernel_peak(dtype, "bilstm_bwd_lite_f32"),
+            "gates": kernel_peak(dtype, "bilstm_gates_f32"),
+            "fwd": kernel_peak(dtype, "bilstm_fwd_wide_f32"),
+            "fwd_eval": kernel_peak(dtype, "bilstm_fwd_wide_f32")})
         if not bf16:
-            for key in ("wgrad", "lite"):
+            for key in ("wgrad", "lite", "gates", "fwd", "fwd_eval"):
                 t[f"{key}_cuda_core_bound_ms"], t[f"{key}_cuda_core_bound_by"] = bound(
                     [(*work[key], PEAK_F32_FLOPS)])
         timings[name] = t
@@ -2464,8 +2709,10 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
         lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
         groups={"gates_mma": "bilstm_gates_mma_kernel",
                 "gates_cuda_core": "bilstm_gates_kernel",
+                "gates_f32": "bilstm_gates_f32_kernel",
                 "fwd_wide_mma": "bilstm_fwd_wide_mma_kernel",
                 "fwd_wide": "bilstm_fwd_wide_kernel",
+                "fwd_wide_f32": "bilstm_fwd_wide_f32_kernel",
                 "lite_mma": "bilstm_bwd_lite_mma_kernel",
                 "lite_cuda_core": "bilstm_bwd_lite_kernel",
                 "lite_f32": "bilstm_bwd_lite_f32_kernel",
@@ -2480,29 +2727,26 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
                        "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
                        "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
                        "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_gates",
-                       "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite")
+                       "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
+                       "bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
+                       "bilstm_bwd_lite_f32")
            if launches[n] != 0]
     if missing or old:
         raise AssertionError(
             f"the scaled steps missed {missing} or ran the resident kernels or the CUDA-core "
             f"gates, forward, sweep or wgrad: {old}")
     del trainer, net
-    # card gradients at the scaled widths: in f32 (the CUDA-core gates and
-    # wide forward, whose main path this step and the eval step after it
-    # are, and the 3xTF32 lite sweep and wgrad) and in bf16 (the tensor-core
-    # ones)
+    # card gradients at the scaled widths: in f32 (the 3xTF32 gates, wide
+    # forward, lite sweep and wgrad, whose main path this step and the eval
+    # step after it are) and in bf16 (the tensor-core ones)
     grad_check = train_grad_check(dev, eval_step=True, embedding_size=E_SCALED,
                                   rnn_num_layers=LAYERS_SCALED)
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16, embedding_size=E_SCALED,
                                        rnn_num_layers=LAYERS_SCALED)
     for check, want, never in (
-            (grad_check, ("bilstm_gates", "bilstm_bwd_lite_f32", "bilstm_fwd_wide_train",
-                          "bilstm_fwd_wide", "bilstm_wgrad_f32"),
-             ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_fwd_wide_train_mma",
-              "bilstm_fwd_wide_mma", "bilstm_wgrad", "bilstm_bwd_lite")),
+            (grad_check, WIDE_F32, WIDE_BF16 + WIDE_CUDA_CORE),
             (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma",
-                               "bilstm_fwd_wide_train_mma"),
-             ("bilstm_gates", "bilstm_bwd_lite", "bilstm_wgrad", "bilstm_fwd_wide_train"))):
+                               "bilstm_fwd_wide_train_mma"), WIDE_F32 + WIDE_CUDA_CORE)):
         ran = check["launches"]
         if any(ran.get(n, 0) <= 0 for n in want) or any(ran.get(n, 0) for n in never):
             raise AssertionError(f"the {check['dtype']} gradient step at the scaled widths ran "
@@ -2683,25 +2927,23 @@ def cluster_sweep_h128(dev, H=128) -> dict:
 
 def recurrence_past_288(dev) -> dict:
     """The recurrence op's kernels past the 256 units they once stopped at:
-    H = 288 (the cluster kernels' 288-thread instance), 512 and 1024 (f32:
-    the global-weight instance, its slices read from an L2-resident copy;
-    bf16: the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``),
-    D = 2, 16 rows in 2 weight groups, T = 64, masks from lengths, f32 and
-    bf16: the forward, the sweep and the weight gradient against their plain
-    twins (``checks``). Then the bf16 tensor-core kernels alone at H = 320,
-    512 and 1024, masks from lengths and masks with holes, against their
-    twins at 2^-7 x max(1, max|ref|), and the global-weight instance by name
-    on the same operands (``wide_mma_checks``); the f32 tensor-core sweep
-    ``lstm_recurrence_bwd_wide_f32`` alone at the same widths and masks
-    against its twin at 1e-4 x max(1, max|ref|), and the global-weight
-    instance by name (``wide_f32_checks``). Then one call of each at
-    H = 512, 400 rows in 5 groups, T = 300, full-length masks, timed beside
-    its plain twin (timed once, in the check), its bound (f32 CUDA cores in
-    f32, the f32 sweep also at 495/3 TFLOP/s for its three tf32 passes; the
-    bf16 rate in bf16) and cuDNN's one-layer bidirectional LSTM at that
-    width in the same dtype, TF32 off; the tensor-core kernels (in f32 the
-    sweep) and the global-weight instance by name in turns (new, old, old,
-    new), and the clusters the card holds at once (``h512``)."""
+    H = 288 (the cluster kernels' 288-thread instance), 512 and 1024 (the
+    tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma`` in bf16 and
+    ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32), D = 2, 16 rows in 2
+    weight groups, T = 64, masks from lengths, f32 and bf16: the forward,
+    the sweep and the weight gradient against their plain twins
+    (``checks``). Then the bf16 tensor-core kernels alone at H = 320, 512
+    and 1024, masks from lengths and masks with holes, against their twins
+    at 2^-7 x max(1, max|ref|) (``wide_mma_checks``); the f32 tensor-core
+    forward and sweep alone at the same widths and masks against their
+    twins at 1e-4 x max(1, max|ref|) (``wide_f32_checks``). Then one call of
+    each at H = 512, 400 rows in 5 groups, T = 300, full-length masks, timed
+    beside its plain twin (timed once, in the check), its bound (the f32
+    forward and sweep at 495/3 TFLOP/s for their three tf32 passes, the
+    f32 wgrad at 67; the bf16 rate in bf16) and cuDNN's one-layer
+    bidirectional LSTM at that width in the same dtype, TF32 off, the f32
+    forward at each of its row tiles, and the clusters the card holds at
+    once (``h512``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -2748,19 +2990,12 @@ def recurrence_past_288(dev) -> dict:
             args = (xg, valid, w, ref[0], ref[1], dhs, dhn, dcn, 2, cd)
             dxg = recurrence_sweep(*args)
             res["dxg"] = rel_err(L.lstm_recurrence_bwd_wide_mma(*args), dxg, tol)
-            # the global-weight instance by name, at the repo's bf16 tolerance
-            old = {"hs": rel_err(L.lstm_recurrence_fwd(
-                       xg, valid, w, 2, cd, kernel="lstm_recurrence_fwd")[0], ref[0], TOL[cd]),
-                   "dxg": rel_err(L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
-                                  dxg, TOL[cd])}
             torch.cuda.synchronize()
             check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": mask, "dtype": "bfloat16",
                      "max_abs_err": {n: e for n, (e, _) in res.items()},
-                     "tol": f"{tol} x max(1, max|ref|)",
-                     "global_weights_max_abs_err": {n: e for n, (e, _) in old.items()},
-                     "global_weights_tol": f"{TOL[cd]} x max(1, max|ref|)"}
+                     "tol": f"{tol} x max(1, max|ref|)"}
             wide_mma_checks.append(check)
-            if not all(ok for _, ok in list(res.values()) + list(old.values())):
+            if not all(ok for _, ok in res.values()):
                 emit({"phase": "recurrence_kernel", "failed": check})
                 raise AssertionError(f"a bf16 recurrence kernel past 288 disagrees: {check}")
             del xg, valid, w, dhs, ref, args, dxg
@@ -2776,22 +3011,15 @@ def recurrence_past_288(dev) -> dict:
             res = {"dxg": rel_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg, tol)}
             got = L.lstm_recurrence_fwd_wide_f32(xg, valid, w, 2, cd)
             fres = {n: rel_err(a, b, tol) for n, a, b in zip(("hs", "cs", "hn", "cn"), got, ref)}
-            old = {"dxg": rel_err(L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
-                                  dxg, tol),
-                   "hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, 2, cd,
-                                                       kernel="lstm_recurrence_fwd")[0],
-                                 ref[0], tol)}
             torch.cuda.synchronize()
             check = {"B": 16, "T": 64, "D": D_REC, "H": H, "G": 2, "mask": mask,
                      "dtype": "float32", "max_abs_err": {n: e for n, (e, _) in res.items()},
                      "scaled_err": scaled_err(L.lstm_recurrence_bwd_wide_f32(*args), dxg),
                      "fwd_max_abs_err": {n: e for n, (e, _) in fres.items()},
                      "fwd_scaled_err": max(scaled_err(a, b) for a, b in zip(got, ref)),
-                     "tol": f"{tol} x max(1, max|ref|)",
-                     "global_weights_max_abs_err": {n: e for n, (e, _) in old.items()}}
+                     "tol": f"{tol} x max(1, max|ref|)"}
             wide_f32_checks.append(check)
-            if not all(ok for _, ok in list(res.values()) + list(fres.values())
-                       + list(old.values())):
+            if not all(ok for _, ok in list(res.values()) + list(fres.values())):
                 emit({"phase": "recurrence_kernel", "failed": check})
                 raise AssertionError(f"an f32 recurrence kernel past 288 disagrees: {check}")
             del xg, valid, w, dhs, hs, cs, args, dxg, ref, got
@@ -2846,11 +3074,6 @@ def recurrence_past_288(dev) -> dict:
              "wgrad_plain_ms": wgrad_plain_ms}
         res = {"hs": rel_err(L.lstm_recurrence_fwd(xg, valid, w, G, dtype)[0], hs, TOL[dtype]),
                "dxg": rel_err(L.lstm_recurrence_bwd(*args), dxg, TOL[dtype])}
-        if dtype == torch.float32:
-            res["dxg_global_weights"] = rel_err(
-                L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, TOL[dtype])
-            res["hs_global_weights"] = rel_err(L.lstm_recurrence_fwd(
-                xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd")[0], hs, TOL[dtype])
         torch.cuda.synchronize()
         t["max_abs_err"] = {n: e for n, (e, _) in res.items()}
         if not all(ok for _, ok in res.values()):
@@ -2858,14 +3081,8 @@ def recurrence_past_288(dev) -> dict:
             raise AssertionError(f"the recurrence op at H={H}, {B_TRAIN} rows disagrees: {t}")
         fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype)  # noqa: E731
         bwd = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
+        t["fwd_ms"], t["bwd_ms"] = time_ms(fwd, 3), time_ms(bwd, 3)
         if dtype == torch.bfloat16:
-            # new, old, old, new: the tensor-core kernels and the global-weight
-            # instance by name, in one run on one card
-            t["fwd_ms"], t["fwd_ms_again"], t["fwd_global_weights_ms"] = in_turns(
-                fwd, lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype,
-                                                   kernel="lstm_recurrence_fwd"), 3)
-            t["bwd_ms"], t["bwd_ms_again"], t["bwd_global_weights_ms"] = in_turns(
-                bwd, lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), 3)
             t["plans"] = {kind: dict(zip(("rows", "tiles", "smem"), L.wide_plan(
                 f"rec_{kind}_mma", B_TRAIN, G, H, L._max_clusters(
                     f"lstm_recurrence_{kind}_wide_mma", dtype, H, dev), D_REC)))
@@ -2875,13 +3092,6 @@ def recurrence_past_288(dev) -> dict:
                 if k[0].endswith("_wide_mma") and k[2] == H}
             add_bounds(t, recurrence_work(T, H, G, size), dtype)
         else:
-            # new, old, old, new: the f32 tensor-core forward and sweep and the
-            # global-weight instances by name, in one run on one card
-            t["fwd_ms"], t["fwd_ms_again"], t["fwd_global_weights_ms"] = in_turns(
-                fwd, lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype,
-                                                   kernel="lstm_recurrence_fwd"), 3)
-            t["bwd_ms"], t["bwd_ms_again"], t["bwd_global_weights_ms"] = in_turns(
-                bwd, lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), 3)
             # the forward at each row tile its instance is built for
             keep = L.REC_WIDE_F32_FWD_ROWS
             try:
@@ -2890,8 +3100,6 @@ def recurrence_past_288(dev) -> dict:
                     t[f"fwd_rows_{R}_ms"] = time_ms(fwd, 3)
             finally:
                 L.REC_WIDE_F32_FWD_ROWS = keep
-            t["bwd_global_weights_max_abs_err"] = t["max_abs_err"].pop("dxg_global_weights")
-            t["fwd_global_weights_max_abs_err"] = t["max_abs_err"].pop("hs_global_weights")
             names = {kind: f"lstm_recurrence_{kind}_wide_f32" for kind in ("fwd", "bwd")}
             t["plans"] = {kind: dict(zip(("rows", "tiles", "smem"), L.wide_plan(
                 f"rec_{kind}_f32", B_TRAIN, G, H, L._max_clusters(name, dtype, H, dev), D_REC)))
@@ -2901,7 +3109,7 @@ def recurrence_past_288(dev) -> dict:
                 if k[0] in names.values() and k[2] == H}
             work = recurrence_work(T, H, G, size)
             # the forward and the sweep at 495/3 TFLOP/s (three tf32 passes);
-            # wgrad, and the global-weight instances, at 67 (CUDA cores)
+            # wgrad at 67 (CUDA cores)
             add_bounds(t, work, torch.float32, {k: kernel_peak(dtype, n) for k, n in names.items()})
             for kind in names:
                 t[f"{kind}_cuda_core_bound_ms"], t[f"{kind}_cuda_core_bound_by"] = bound(
@@ -3098,9 +3306,9 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # f32 model at embedding 320 at the train shape (2 steps and an eval
     # step, timed) on the f32 tensor-core forward and sweep; its gradients
     # and those of the bf16 model against the CPU's: in f32 the forward and
-    # sweep in three tf32 passes, never the global-weight instances; in bf16
-    # the tensor-core kernels past 288 and never the global-weight instance;
-    # no layer kernel in either
+    # sweep in three tf32 passes, in bf16 the tensor-core kernels past 288,
+    # never the cluster kernels (which take up to 288 units); no layer
+    # kernel in either
     old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
@@ -3437,10 +3645,9 @@ def main() -> int:
     # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
     # take; its main path is layer 0 (E = H = 72) of the bf16 two-layer model
     # at embedding 72 (phase widths' gradient and eval step), timed there.
-    # Also by name on layer 0 at embedding 80 (its main path until the
-    # tensor-core sweep took E = H = 80), in turns with bilstm_bwd_mma, and in
-    # f32 there
-    e, b72 = e80["bfloat16"]["bwd"], widths["bwd_72"]
+    # Also by name on layer 0 at embedding 80 in f32, in turns with the
+    # one-stage sweep
+    b72 = widths["bwd_72"]
     g72 = next(c for c in widths["grad_checks"]
                if c["backend"] == "layer" and c.get("embedding_size") == 72)
     kernels.append({
@@ -3456,10 +3663,6 @@ def main() -> int:
         "bound_by": b72["bound_by"],
         "library_ms": b72["library_ms"],
         "cuda_core_bound_ms": b72["cuda_core_bound_ms"],
-        "h80_ms": e["cuda_core_ms"], "h80_bound_ms": e["bwd_bound_ms"],
-        "h80_cuda_core_bound_ms": e["cuda_core_bound_ms"], "h80_library_ms": e["library_ms"],
-        "h80_max_abs_err": max(v for n, v in e["max_abs_err"].items()
-                               if n.startswith("cuda_core_")),
         "float32_ms": e80["float32"]["bwd"]["cuda_core_ms"],
         "float32_max_abs_err": max(v for n, v in e80["float32"]["bwd"]["max_abs_err"].items()
                                    if n.startswith("cuda_core_")),
@@ -3467,10 +3670,8 @@ def main() -> int:
                 "streams a direction), 400 rows, T=1500; launches: that model's gradient and "
                 "eval step; bound at the bf16 rate (cuda_core_bound_ms at 67 TFLOP/s, its f32 "
                 "FMAs); library: cuDNN one-layer nn.LSTM backward (input) in bf16 at E=H=72, "
-                "TF32 off; h80_*: by name on layer 0 of the bf16 two-layer model at embedding "
-                "80 (E=H=80), in turns with bilstm_bwd_mma (new, old, old, new); float32_*: the "
-                "same by name on the f32 layer's operands, in turns with "
-                "bilstm_bwd_f32_onestage",
+                "TF32 off; float32_*: by name on the operands of layer 0 of the f32 two-layer "
+                "model at embedding 80 (E=H=80), in turns with bilstm_bwd_f32_onestage",
     })
     kernels.append({
         "name": "bilstm_bwd_mma",
@@ -3489,7 +3690,7 @@ def main() -> int:
         "cuda_core_ms": t16["bwd_cuda_core_ms"],
         # its <80, 80> instance: layer 0 of the bf16 model at embedding 80
         **{f"h80_{k}": e80["bfloat16"]["bwd"][k] for k in (
-            "ms", "ms_again", "cuda_core_ms", "plain_ms", "library_ms", "scaled_err")},
+            "ms", "plain_ms", "library_ms", "scaled_err")},
         "h80_bound_ms": e80["bfloat16"]["bwd"]["bwd_bound_ms"],
         "h80_bound_by": e80["bfloat16"]["bwd"]["bwd_bound_by"],
         "h80_launches": e80_launches["bfloat16"]["bilstm_bwd_mma"],
@@ -3500,8 +3701,7 @@ def main() -> int:
                 "cuDNN nn.LSTM backward (input) in bf16; h80_*: its <80, 80> instance on layer "
                 "0 of the bf16 two-layer model at embedding 80 (E=H=80, 5 groups, two dy "
                 "streams a direction), 400 rows, T=1500, its launches in that model's steps, "
-                "cuda_core_ms: bilstm_bwd.cu by name in turns (new, old, old, new), library: "
-                "cuDNN one-layer bf16 backward (input)",
+                "library: cuDNN one-layer bf16 backward (input)",
     })
     if kernels[-1]["h80_launches"] <= 0:
         raise AssertionError("the bf16 model at embedding 80 never ran the tensor-core sweep")
@@ -3566,82 +3766,139 @@ def main() -> int:
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    # the CUDA-core gates and wide forward keep f32, whose main path is the
-    # f32 gradient step at the scaled widths and the eval step after it
-    # (train_scaled's grad_check); the CUDA-core lite sweep keeps f32 at 96,
-    # 160, 192 and 224 (the stacked layer of the f32 model at embedding 80,
-    # its main path), timed by name at the scaled widths in turns with the
-    # f32 tensor-core sweep
+    # the CUDA-core wide forward and lite sweep: their main path is the
+    # stacked layer of the two-layer model at embedding 80 (run at H = 96),
+    # f32 and bf16; each by name at the scaled widths in turns with the
+    # tensor-core kernel (the lite sweep in bf16 only), the forward in f32
+    # at 288 / 256 / 128 (phase widths). The CUDA-core gates
+    # (bilstm_gates.cu) have no main path any more: every wide shape takes a
+    # tensor-core gates kernel, so their times ride as cuda_core_* fields of
+    # bilstm_gates_f32's and bilstm_gates_mma's entries
     f32_scaled = scaled["grad_check"]["launches"]
-    lite32 = widths["lite_f32"]
+    lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
+    e80_f32 = train["steps_embedding_80"]["float32"]["launches"]
     for key, name, source, replaces in (
-        ("gates", "bilstm_gates", "bilstm_gates.cu", "lstm_pallas_layer.py:285"),
         ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
     ):
+        cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": e80_f32[name],
+            "max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
+                               for n, v in c["max_abs_err"].items() if n in cuda_core_errs),
+        }
+        if key == "lite":
+            # f32 on its main path; bf16 there too (h96_*), and by name in bf16
+            # at the scaled widths
+            entry.update({
+                "max_abs_err": l96["max_abs_err"], "ms": l96["ms"], "plain_ms": l96["plain_ms"],
+                "bound_ms": l96["bound_ms"], "bound_by": l96["bound_by"],
+                "true_bound_ms": l96["true_bound_ms"], "library_ms": l96["library_ms"],
+                "bf16_h256_ms": w16["lite_cuda_core_ms"],
+                "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, "
+                        "run at H=96, one weight group, one dy stream), 400 rows, T=1500, its "
+                        "main path: launches in that model's f32 steps; bound at 67 TFLOP/s at "
+                        "H=96 (true_bound_ms at 80); library: cuDNN one-layer f32 backward "
+                        "(input) at E=160, H=80, TF32 off; bf16_h256_ms: by name on the bf16 "
+                        "scaled step's operands (layer 0 + one E=2x256 layer), in turns with "
+                        "bilstm_bwd_lite_mma",
+            })
+        else:
+            entry.update({
+                "ms": w32[f"{key}_cuda_core_ms"],
+                "plain_ms": w32[f"{key}_plain_ms"],
+                "bound_ms": w32[f"{key}_cuda_core_bound_ms"],
+                "bound_by": w32[f"{key}_cuda_core_bound_by"],
+                "library_ms": w32[f"{key}_library_ms"],
+                "bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
+                **{f"{h}_ms": r[f"{key}_cuda_core_ms"] for h, r in wf32.items()},
+                "work": "ms: by name on layer 0 (E=256, 5 groups) + one E=2x256 layer of the f32 "
+                        "scaled step, 400 rows, T=1500, H=256, in turns with the f32 "
+                        "tensor-core kernel; bound at 67 TFLOP/s; bf16_h256_ms: the same on the "
+                        "bf16 operands; hN_ms: by name on the f32 layers of phase widths' "
+                        "wide_f32 (H=288 layer 0 and stacked layer at embedding 272, 256, 128 "
+                        "at embedding 100), in turns; library: cuDNN one bidirectional "
+                        "nn.LSTM layer in f32, TF32 off; launches: the f32 steps at embedding "
+                        "80 (H=96)",
+            })
+        # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
+        k96 = widths["kernels_96"][key]
+        entry.update({f"h96_{k}": k96[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
+        entry["h96_max_abs_err"] = max(k96["max_abs_err"].values())
+        entry["h96_launches"] = train["steps_embedding_80"]["bfloat16"]["launches"][name]
+        entry["work"] += ("; h96_*: bf16 on the stacked layer of the two-layer model at "
+                          "embedding 80 (E=80+80, run at H=96, one weight group), 400 rows, "
+                          "T=1500, bound at H=96 (true_bound_ms at 80), launches in that "
+                          "model's bf16 steps, library: cuDNN one-layer bf16 at E=160, H=80")
+        if min(entry["launches"], entry["h96_launches"]) <= 0:
+            raise AssertionError(f"the models at embedding 80 never ran {name} at H=96")
+        kernels.append(entry)
+    # the f32 tensor-core gates and wide forward (both variants): the f32
+    # gradient step at the scaled widths and its eval step, and the f32
+    # models at embedding 100 (H = 128) and 272 (288)
+    f32_models = widths["models"]
+    for key, name, source, picks in (
+        ("gates", "bilstm_gates_f32", "bilstm_gates_f32", lambda n: n == "xg"),
+        ("fwd", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
+         lambda n: n.startswith(("train_", "fwd_rows")) and "_vs_" not in n),
+        ("fwd_eval", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_f32",
+         lambda n: n.startswith(("eval_", "fwd_eval_rows"))),
+    ):
+        picked = [v for c in wk["checks"] + wk["ragged_checks"]
+                  if c["dtype"] == "float32" and source in c.get("kernels", ())
+                  for n, v in c["max_abs_err"].items() if picks(n)]
+        picked += [v for r in wf32.values() for n, v in r["max_abs_err"].items() if picks(n)]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{source}.cu",
+            "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:"
+                        + ("255" if key == "gates" else "285"),
             "launches": f32_scaled.get(name, 0),
-            "max_abs_err": max(v for c in wk["checks"] if c["dtype"] == "float32"
-                               and c["route"] == "wide"
-                               for n, v in c["max_abs_err"].items() if n in wide_errs[key]),
+            "max_abs_err": max(picked),
             "ms": w32[f"{key}_ms"],
+            "ms_again": w32[f"{key}_ms_again"],
             "plain_ms": w32[f"{key}_plain_ms"],
             "bound_ms": w32[f"{key}_bound_ms"],
             "bound_by": w32[f"{key}_bound_by"],
             "library_ms": w32[f"{key}_library_ms"],
-            "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, "
-                    "400 rows, T=1500, H=256",
+            "cuda_core_ms": w32[f"{key}_cuda_core_ms"],
+            "cuda_core_bound_ms": w32[f"{key}_cuda_core_bound_ms"],
+            "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, 400 "
+                    "rows, T=1500, H=256; launches: the f32 gradient step at the scaled widths "
+                    "and the eval step after it; bound at 495/3 TFLOP/s (three tf32 passes; "
+                    "cuda_core_bound_ms at 67); cuda_core_ms: "
+                    + ("bilstm_gates.cu" if key == "gates" else "bilstm_fwd_wide.cu")
+                    + " by name on the same operands (new, old, old, new); library: "
+                    + ("one torch.addmm in f32 (cuBLAS)" if key == "gates" else
+                       "cuDNN " + ("training" if key == "fwd" else "inference")
+                       + " forward of one bidirectional nn.LSTM layer in f32")
+                    + ", TF32 off; hN_*: the f32 layers of phase widths' wide_f32 (layer 0 and "
+                      "the stacked layer at embedding 272, run at H=288; layer 0 of the scaled "
+                      "configuration; layer 0 at embedding 100, at H=128), 400 rows, T=1500, "
+                      "in turns with the CUDA-core kernel, bound at the padded widths "
+                      "(true_bound_ms at the true ones); hN_launches in those models' steps",
         }
-        entry.update({f"bf16_{k}": w16[f"{key}_{k}"] for k in ("cuda_core_ms", "plain_ms")})
-        entry["work"] += ("; launches: the f32 gradient step at the scaled widths and the eval "
-                          "step after it; bf16_cuda_core_ms: this kernel on the bf16 operands "
-                          "of the tensor-core one's row, by name")
-        if key == "lite":
-            entry.update({
-                "launches": train["steps_embedding_80"]["float32"]["launches"][name],
-                "max_abs_err": max(r["max_abs_err"]["cuda_core_dgates"] for r in lite32.values()),
-                "ms": w32["lite_cuda_core_ms"], "bound_ms": w32["lite_cuda_core_bound_ms"],
-                "bound_by": w32["lite_cuda_core_bound_by"],
-                "tensor_core_ms": w32["lite_ms"],
-                **{f"h{h}_f32_ms": r["cuda_core_ms"] for h, r in
-                   ((k[1:], v) for k, v in lite32.items())},
-            })
-            entry["work"] = entry["work"].replace(
-                "launches: the f32 gradient step at the scaled widths and the eval step after it",
-                "ms: by name at the scaled widths in turns with bilstm_bwd_lite_f32 "
-                "(tensor_core_ms), bound at 67 TFLOP/s; launches: the f32 steps of the two-layer "
-                "model at embedding 80 (its stacked layer at H=96); max_abs_err: by name at "
-                "288, 256 and 128 (hN_f32_ms: by name on those layers, in turns)")
-        if key != "gates":
-            # the 288-thread instance: layer 0 of the bf16 model at embedding 272
-            k288 = widths["kernels_288"][key]
-            entry.update({f"h288_{k}": k288[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
-            entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
-            entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
-            entry["work"] += ("; h288_*: its 288-thread instance by name, off the main path "
-                              "since the tensor-core kernel took bf16 at H=288 ("
-                              + ("bilstm_bwd_lite_mma" if key == "lite" else "bilstm_fwd_wide_mma")
-                              + "; h288_launches 0 in the bf16 model at embedding 272), on the "
-                              "operands of layer 0 of that model (E=272, run at H=288), bf16, "
-                              "400 rows, T=1500, in turns with the tensor-core kernel, bound at "
-                              "H=288 (true_bound_ms at 272), library: cuDNN one-layer bf16 at "
-                              "E=H=272")
-            # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
-            k96 = widths["kernels_96"][key]
-            entry.update({f"h96_{k}": k96[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
-            entry["h96_max_abs_err"] = max(k96["max_abs_err"].values())
-            entry["h96_launches"] = train["steps_embedding_80"]["bfloat16"]["launches"][name]
-            entry["work"] += ("; h96_*: bf16 on the stacked layer of the two-layer model at "
-                              "embedding 80 (E=80+80, run at H=96, one weight group), 400 rows, "
-                              "T=1500, bound at H=96 (true_bound_ms at 80), launches in that "
-                              "model's bf16 steps, library: cuDNN one-layer bf16 at E=160, H=80")
+        for h, r in wf32.items():
+            entry.update({f"{h}_{k}": r[f"{key}_{k}"] for k in (
+                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
+                "true_bound_ms", "cuda_core_bound_ms", "library_ms")})
+            if key == "fwd":
+                entry[f"{h}_rows_ms"] = {k[4:]: v for k, v in r.items()
+                                         if k.startswith("fwd_rows") and k.endswith("_ms")
+                                         and not k.endswith("_dispatch_ms")}
+                entry.update({f"{h}_{k}": r[k] for k in ("fwd_rows", "fwd_tiles",
+                                                         "max_active_clusters", "f32_copy_ms")})
+        entry["h288_launches"] = f32_models["embedding_272_float32"]["launches"][name]
+        entry["h128_launches"] = f32_models["embedding_100_float32"]["launches"][name]
+        if min(entry["launches"], entry["h288_launches"], entry["h128_launches"]) <= 0:
+            raise AssertionError(f"an f32 main path never ran {name}")
         kernels.append(entry)
     # the tensor-core gates, wide forward (both variants) and lite sweep: the
     # bf16 scaled step and its eval step; each error name the checks give
@@ -3692,8 +3949,9 @@ def main() -> int:
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"][f"{key}_mma"]
             entry.update({f"h288_{k}": k288[k] for k in (
-                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
-                "true_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters")})
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
+            entry.update({f"h288_{k}": widths["kernels_288"]["fwd_mma"][k] for k in (
+                "rows", "tiles", "max_active_clusters")})
             entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
             entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
             if entry["h288_launches"] <= 0:
@@ -3701,15 +3959,14 @@ def main() -> int:
             entry["work"] += ("; h288_*: its instance for 4 or 5 unit groups a block on layer 0 "
                               "of the bf16 two-layer model at embedding 272 (E=272, run at "
                               "H=288, 5 groups), 400 rows, T=1500, bound at H=288 "
-                              "(true_bound_ms at 272), cuda_core_ms: bilstm_fwd_wide.cu's "
-                              "288-thread instance by name (new, old, old, new), launches in "
-                              "that model's steps, library: cuDNN one-layer bf16 at E=H=272")
+                              "(true_bound_ms at 272), launches in that model's steps, "
+                              "library: cuDNN one-layer bf16 at E=H=272")
         if key == "lite":
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"]["lite_mma"]
             entry.update({f"h288_{k}": k288[k] for k in (
-                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
-                "true_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters")})
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms", "rows",
+                "tiles", "max_active_clusters")})
             entry["h288_max_abs_err"] = max(k288["max_abs_err"].values())
             entry["h288_launches"] = widths["models"]["embedding_272_bfloat16"]["launches"][name]
             if entry["h288_launches"] <= 0:
@@ -3723,9 +3980,8 @@ def main() -> int:
             entry["work"] += ("; h288_*: its instance for 4 or 5 unit groups a block on layer 0 "
                               "of the bf16 two-layer model at embedding 272 (E=272, run at "
                               "H=288, 5 groups, two dy streams), 400 rows, T=1500, bound at "
-                              "H=288 (true_bound_ms at 272), cuda_core_ms: bilstm_bwd_lite.cu's "
-                              "288-thread instance by name (new, old, old, new), launches in "
-                              "that model's steps, library: cuDNN one-layer bf16 at E=H=272")
+                              "H=288 (true_bound_ms at 272), launches in that model's steps, "
+                              "library: cuDNN one-layer bf16 at E=H=272")
         kernels.append(entry)
     # the f32 tensor-core lite sweep: its main path is the f32 gradient step at
     # the scaled widths (H = 256) and the f32 steps at embedding 100 (128)
@@ -3743,29 +3999,26 @@ def main() -> int:
                               for n, v in c["max_abs_err"].items() if n == "dgates"]),
         "scaled_err": max(r["scaled_err"] for r in lite32.values()),
         "ms": w32["lite_ms"],
-        "ms_again": w32["lite_ms_again"],
         "plain_ms": w32["lite_plain_ms"],
         "bound_ms": w32["lite_bound_ms"],
         "bound_by": w32["lite_bound_by"],
         "library_ms": w32["lite_library_ms"],
-        "cuda_core_ms": w32["lite_cuda_core_ms"],
         "cuda_core_bound_ms": w32["lite_cuda_core_bound_ms"],
         "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, 400 "
                 "rows, T=1500, H=256; launches: the f32 gradient step at the scaled widths and "
                 "the eval step after it; bound at 495/3 TFLOP/s (three tf32 passes; "
-                "cuda_core_bound_ms at 67); cuda_core_ms: bilstm_bwd_lite.cu by name on the "
-                "same operands (new, old, old, new); library: cuDNN backward (input) of one "
+                "cuda_core_bound_ms at 67); library: cuDNN backward (input) of one "
                 "bidirectional nn.LSTM layer in f32, TF32 off; hN_*: layer 0 of the f32 "
                 "two-layer models at embedding 272 (run at H=288) and 100 (at H=128, parts of "
                 "112) and of the scaled configuration (256), 400 rows in 5 groups, two dy "
-                "streams, in turns with bilstm_bwd_lite.cu by name, bound at the padded H "
+                "streams, bound at the padded H "
                 "(true_bound_ms at the true H), rows_R_ms at each row tile, library: cuDNN "
                 "one-layer f32 at the true widths; hN_launches in those models' steps",
     }
     models = widths["models"]
     for key, r in lite32.items():
         entry.update({f"{key}_{k}": r[k] for k in (
-            "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+            "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
             "cuda_core_bound_ms", "library_ms", "rows", "tiles", "max_active_clusters",
             "scaled_err")})
         entry[f"{key}_rows_ms"] = {k: v for k, v in r.items() if k.startswith("rows_")}
@@ -3823,26 +4076,6 @@ def main() -> int:
             entry["work"] += ("; h512_*: one call at H=512 (400 rows, 5 groups, T=300), f32, "
                               "library: cuDNN one bidirectional nn.LSTM layer at that width; "
                               "h512_max_abs_err over H=288, 512 and 1024")
-        if key == "fwd":
-            # its global-weight instance past 288, by name: one call at H = 512
-            h512 = past["h512"]["float32"]
-            entry.update({"h512_ms": h512["fwd_global_weights_ms"],
-                          "h512_plain_ms": h512["fwd_plain_ms"],
-                          "h512_bound_ms": h512["fwd_cuda_core_bound_ms"],
-                          "h512_bound_by": h512["fwd_cuda_core_bound_by"],
-                          "h512_library_ms": h512["fwd_library_ms"],
-                          "h512_max_abs_err": max(
-                              [c["global_weights_max_abs_err"]["hs"]
-                               for c in past["wide_f32_checks"]
-                               if "hs" in c.get("global_weights_max_abs_err", {})]
-                              + [h512["fwd_global_weights_max_abs_err"]]),
-                          "h512_bf16_ms": past["h512"]["bfloat16"]["fwd_global_weights_ms"]})
-            entry["work"] += ("; h512_*: its global-weight instance by name, one call at "
-                              "H=512 (400 rows, 5 groups, T=300), f32, in turns with "
-                              "lstm_recurrence_fwd_wide_f32, bound at 67 TFLOP/s, library: "
-                              "cuDNN one bidirectional nn.LSTM layer at that width; "
-                              "h512_max_abs_err over H=320, 512 and 1024 by name; "
-                              "h512_bf16_ms: the same by name in bf16")
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
                           "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
@@ -3868,24 +4101,12 @@ def main() -> int:
         "bound_ms": c128["bwd_bound_ms"],
         "bound_by": c128["bwd_bound_by"],
         "library_ms": c128["library_ms"],
-        **{f"h512_{k}": h512f[f"bwd_{k}"] for k in ("plain_ms", "library_ms")},
-        "h512_ms": h512f["bwd_global_weights_ms"],
-        "h512_bound_ms": h512f["bwd_cuda_core_bound_ms"],
-        "h512_bound_by": h512f["bwd_cuda_core_bound_by"],
-        "h512_bf16_ms": rk["past_288"]["h512"]["bfloat16"]["bwd_global_weights_ms"],
-        "h512_max_abs_err": max(
-            [c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
-             if c["sweep"] == "lstm_recurrence_bwd"]
-            + [c["global_weights_max_abs_err"]["dxg"]
-               for c in rk["past_288"]["wide_f32_checks"] if "global_weights_max_abs_err" in c]
-            + [h512f["bwd_global_weights_max_abs_err"]]),
+        "h288_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
+                                if c["sweep"] == "lstm_recurrence_bwd"),
         "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
                 "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
-                "one-layer nn.LSTM backward (input), with the projection's dx; h512_*: its "
-                "global-weight instance by name, one call at H=512 (400 rows, 5 groups, "
-                "T=300), f32, in turns with lstm_recurrence_bwd_wide_f32 (h512_bf16_ms: bf16 "
-                "compute dtype, by name), bound at 67 TFLOP/s, max_abs_err over H=288 and, by "
-                "name, H=320, 512 and 1024 (lengths and holes) and the timed H=512 call",
+                "one-layer nn.LSTM backward (input), with the projection's dx; "
+                "h288_max_abs_err: its 288-thread instance at H=288 in both dtypes",
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
@@ -3936,7 +4157,7 @@ def main() -> int:
     })
     # the bf16 tensor-core recurrence kernels past 288: their main path is the
     # bf16 one-layer model at embedding 320; timed at H = 512 (400 rows in 5
-    # groups, T = 300), the global-weight instance by name in turns
+    # groups, T = 300)
     past, h512 = rk["past_288"], rk["past_288"]["h512"]["bfloat16"]
     for key, name, replaces, errs in (
             ("fwd", "lstm_recurrence_fwd_wide_mma", "lstm_pallas.py:116", rec_errs["fwd"]),
@@ -3950,18 +4171,14 @@ def main() -> int:
             "max_abs_err": max(v for c in past["wide_mma_checks"]
                                for n, v in c["max_abs_err"].items() if n in errs),
             "ms": h512[f"{key}_ms"],
-            "ms_again": h512[f"{key}_ms_again"],
             "plain_ms": h512[f"{key}_plain_ms"],
             "bound_ms": h512[f"{key}_bound_ms"],
             "bound_by": h512[f"{key}_bound_by"],
             "library_ms": h512[f"{key}_library_ms"],
-            "global_weights_ms": h512[f"{key}_global_weights_ms"],
             "rows": h512["plans"][key]["rows"],
             "max_active_clusters": h512["max_active_clusters"],
             "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full "
-                    "lengths, bf16 compute dtype; bound at the bf16 rate; global_weights_ms: "
-                    "the global-weight instance of lstm_recurrence_"
-                    f"{key}.cu by name on the same operands (new, old, old, new); library: "
+                    "lengths, bf16 compute dtype; bound at the bf16 rate; library: "
                     "cuDNN one bidirectional nn.LSTM layer in bf16 at that width, which also "
                     "does the input projection; max_abs_err over H=320, 512 and 1024, masks "
                     "from lengths and with holes (tolerance 2^-7 x max(1, max|ref|)); "
@@ -3969,7 +4186,7 @@ def main() -> int:
         })
     # the f32 tensor-core sweep past 288: its main path is the f32 one-layer
     # model at embedding 320; timed at H = 512 (400 rows in 5 groups,
-    # T = 300), the global-weight instance by name in turns
+    # T = 300)
     name = "lstm_recurrence_bwd_wide_f32"
     kernels.append({
         "name": name,
@@ -3980,27 +4197,24 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"]["dxg"] for c in past["wide_f32_checks"]),
         "scaled_err": max(c["scaled_err"] for c in past["wide_f32_checks"]),
         "ms": h512f["bwd_ms"],
-        "ms_again": h512f["bwd_ms_again"],
         "plain_ms": h512f["bwd_plain_ms"],
         "bound_ms": h512f["bwd_bound_ms"],
         "bound_by": h512f["bwd_bound_by"],
         "cuda_core_bound_ms": h512f["bwd_cuda_core_bound_ms"],
         "library_ms": h512f["bwd_library_ms"],
-        "global_weights_ms": h512f["bwd_global_weights_ms"],
         "rows": h512f["plans"]["bwd"]["rows"],
         "max_active_clusters": h512f["max_active_clusters"],
         "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full lengths, f32 "
                 "compute dtype; bound at 495/3 TFLOP/s (three tf32 passes; cuda_core_bound_ms "
-                "at 67); global_weights_ms: the global-weight instance of "
-                "lstm_recurrence_bwd.cu by name on the same operands (new, old, old, new); "
-                "library: cuDNN one bidirectional nn.LSTM layer in f32 at that width, TF32 off, "
+                "at 67); library: cuDNN one bidirectional nn.LSTM layer in f32 at that width, "
+                "TF32 off, "
                 "which also does the input projection; max_abs_err over H=320, 512 and 1024, "
                 "masks from lengths and with holes (tolerance 1e-4 x max(1, max|ref|)); "
                 "launches: the f32 model at embedding 320, one layer",
     })
     # the f32 tensor-core forward past 288: its main path is the f32 one-layer
     # model at embedding 320 on the default backend; timed at H = 512 (400
-    # rows in 5 groups, T = 300), the global-weight instance by name in turns
+    # rows in 5 groups, T = 300)
     name = "lstm_recurrence_fwd_wide_f32"
     kernels.append({
         "name": name,
@@ -4012,29 +4226,25 @@ def main() -> int:
                            for v in c["fwd_max_abs_err"].values()),
         "scaled_err": max(c["fwd_scaled_err"] for c in past["wide_f32_checks"]),
         "ms": h512f["fwd_ms"],
-        "ms_again": h512f["fwd_ms_again"],
         "plain_ms": h512f["fwd_plain_ms"],
         "bound_ms": h512f["fwd_bound_ms"],
         "bound_by": h512f["fwd_bound_by"],
         "cuda_core_bound_ms": h512f["fwd_cuda_core_bound_ms"],
         "library_ms": h512f["fwd_library_ms"],
-        "global_weights_ms": h512f["fwd_global_weights_ms"],
         "rows": h512f["plans"]["fwd"]["rows"],
         "rows_ms": {k: v for k, v in h512f.items() if k.startswith("fwd_rows_")},
         "max_active_clusters": h512f["max_active_clusters"],
         "steps_launches": rpath["float32_steps_embedding_320"]["launches"][name],
         "work": "one call at H=512, 400 rows in 5 weight groups, D=2, T=300, full lengths, f32 "
                 "compute dtype; bound at 495/3 TFLOP/s (three tf32 passes; cuda_core_bound_ms "
-                "at 67); global_weights_ms: the global-weight instance of "
-                "lstm_recurrence_fwd.cu by name on the same operands (new, old, old, new); "
-                "rows_ms: at each row tile; library: cuDNN training forward of one "
+                "at 67); rows_ms: at each row tile; library: cuDNN training forward of one "
                 "bidirectional nn.LSTM layer in f32 at that width, TF32 off, which also does "
                 "the input projection; max_abs_err over H=320, 512 and 1024, masks from lengths "
                 "and with holes, and 400 rows at 320 and 512 (tolerance 1e-4 x max(1, "
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 32 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 34 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

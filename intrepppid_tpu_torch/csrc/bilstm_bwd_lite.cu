@@ -49,14 +49,12 @@
 // partials are read). dc stays local. The partial buffer reuses the
 // h_prev tile's shared memory. The next step's h_prev tile, input gates,
 // c_prev and dy are loaded into registers while the current step computes.
-// bf16 at H = 128 and 256 takes bilstm_bwd_lite_mma.cu (the same split
-// with both products on the tensor cores; ops/lstm_cuda.py:lite_kernel);
-// this kernel keeps f32 and the other bf16 widths. Up to H = 256 it runs
-// in blocks instantiated for 256 threads (255 registers a thread); H = 257
-// to 288 takes a second instance for 288-thread blocks (224 registers),
-// whose padded slice (167 KB at 288), h tile and gate tile still fit
-// shared memory at 2 and 4 rows a thread. Not yet done: f32 on the tensor
-// cores.
+// At H = 128, 256 and 288 the tensor-core sweeps take over
+// (bilstm_bwd_lite_mma.cu in bf16, bilstm_bwd_lite_f32.cu in f32;
+// ops/lstm_cuda.py:lite_kernel); this kernel keeps 96, 160, 192 and 224 in
+// either dtype, and bf16 at 128 and 256 by name. It runs in blocks
+// instantiated for 256 threads (255 registers a thread). Not yet done: f32
+// on the tensor cores at its widths.
 
 #include <cooperative_groups.h>
 
@@ -264,7 +262,7 @@ bilstm_bwd_lite_kernel(const float* __restrict__ xg, const int* __restrict__ len
 extern "C" {
 
 int bilstm_bwd_lite_cluster() { return kWideCluster; }
-int bilstm_bwd_lite_max_threads() { return kWideMaxThreads; }
+int bilstm_bwd_lite_max_threads() { return kWideSmallThreads; }
 int bilstm_bwd_lite_rows_mask() { return kWideRowsMask; }
 int bilstm_bwd_lite_pad() { return kPad; }
 
@@ -276,7 +274,7 @@ const char* bilstm_bwd_lite_error_string(int err) {
 // (2, T, B, 4H) f32; w_hh (2, G, 4H, H); hs_f, hs_b, cs_f, cs_b and the dy
 // streams (T, B, H) in the dtype (dy*1 may be null, ny = 0-2 streams per
 // direction); dhn / dcn (2, B, H) f32 or null (zero); dgates (2, T, B, 4H)
-// f32. H % 32 == 0, H <= kWideMaxThreads; `tiles` as for bilstm_fwd_wide.
+// f32. H % 32 == 0, H <= kWideSmallThreads; `tiles` as for bilstm_fwd_wide.
 // With max_clusters non-null, nothing is launched (see bilstm_fwd_wide).
 // Returns a cudaError_t (0 on success).
 int bilstm_bwd_lite(int dtype, int rows_per_thread, const void* xg, const void* lengths,
@@ -286,7 +284,7 @@ int bilstm_bwd_lite(int dtype, int rows_per_thread, const void* xg, const void* 
                     int T_steps, int B, int H, int G, int tiles, int smem, void* stream,
                     int* max_clusters) {
   const Streams2 dy{{dyf0, dyf1}, {dyb0, dyb1}, ny};
-  return dispatch_wide(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
+  auto launch = [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
     return launch_wide(bilstm_bwd_lite_kernel<decltype(r)::value, T, decltype(n)::value>, tiles, H,
                        smem, static_cast<cudaStream_t>(stream), max_clusters,
@@ -296,7 +294,8 @@ int bilstm_bwd_lite(int dtype, int rows_per_thread, const void* xg, const void* 
                        static_cast<const T*>(cs_b), dy, static_cast<const float*>(dhn),
                        static_cast<const float*>(dcn), static_cast<float*>(dgates), T_steps, B,
                        H, G);
-  });
+  };
+  return dispatch_wide<kWideSmallThreads, kWideSmallThreads>(dtype, rows_per_thread, H, launch);
 }
 
 }  // extern "C"

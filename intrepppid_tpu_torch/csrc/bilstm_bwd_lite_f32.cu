@@ -3,11 +3,11 @@
 // variant in three tf32 passes, hand-written for Hopper (sm_90a).
 //
 // Replaces, like bilstm_bwd_lite.cu (which keeps the f32 widths this kernel
-// does not take and is reached here by name), the TPU kernel
+// does not take), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel with
 //     fused_input=False (via _bwd_pallas_lite, :723) -- the lite backward
 //     of the large-H plan (the scaled configuration's H = 256);
-// and, with bilstm_gates.cu before it and the input-side products and
+// and, with bilstm_gates_f32.cu before it and the input-side products and
 // bilstm_wgrad_f32.cu after it (ops/lstm_stack.py), _bwd_kernel with
 // fused_input=True (via _bwd_pallas, :603) at H = 128; for compute dtype
 // float32 at H = 128, 256 and 288 (ops/lstm_cuda.py:lite_kernel).

@@ -132,11 +132,10 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
 // (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
 // of kWideRows. Each kernel is instantiated for blocks of at most
 // kWideSmallThreads threads (H <= 256: the register budget of 255 a thread
-// it had before wider blocks) and of at most kWideMaxThreads (H = 257 to
-// 288: 224 registers a thread); the recurrence kernels also for blocks of
-// at most kRecMaxH threads (H = 289 to 1024: 64 registers a thread), whose
-// weight slice no longer fits shared memory beside the h tile and is read
-// from a copy in global memory (L2) instead.
+// it had before wider blocks) and, where a route takes H = 257 to 288 in
+// that dtype, of at most kWideMaxThreads (224 registers a thread). kRecMaxH
+// is the recurrence op's widest H on the card (its tensor-core kernels
+// past 288).
 constexpr int kWideCluster = 8;
 constexpr int kWideSmallThreads = 256;
 constexpr int kWideMaxThreads = 288;
@@ -145,17 +144,17 @@ constexpr int kWideRowsMask = (1 << 2) | (1 << 4) | (1 << 7) | (1 << 10);
 
 // Call f(std::integral_constant<int, R>, T{}, std::integral_constant<int,
 // kThreads>) for dtype code (0: float, 1: bfloat16), R in kWideRows and the
-// block instance kThreads that takes H threads: kWideSmallThreads,
-// kWideMaxThreads, or (with kGlobal, the recurrence kernels) kRecMaxH;
-// cudaErrorInvalidValue for anything else.
-template <bool kGlobal = false, typename F>
+// block instance kThreads that takes H threads: kWideSmallThreads, or
+// kWideMaxThreads up to the dtype's widest H (kMaxF32, kMaxBf16: the
+// kernel's instances); cudaErrorInvalidValue for anything else.
+template <int kMaxF32 = kWideMaxThreads, int kMaxBf16 = kWideMaxThreads, typename F>
 int dispatch_wide(int dtype, int rows, int H, F&& f) {
   auto by_threads = [&](auto r, auto t) -> int {
+    constexpr int kMax = std::is_same<decltype(t), float>::value ? kMaxF32 : kMaxBf16;
     if (H <= 0) return (int)cudaErrorInvalidValue;
     if (H <= kWideSmallThreads) return f(r, t, std::integral_constant<int, kWideSmallThreads>{});
-    if (H <= kWideMaxThreads) return f(r, t, std::integral_constant<int, kWideMaxThreads>{});
-    if constexpr (kGlobal) {
-      if (H <= kRecMaxH) return f(r, t, std::integral_constant<int, kRecMaxH>{});
+    if constexpr (kMax > kWideSmallThreads) {
+      if (H <= kWideMaxThreads) return f(r, t, std::integral_constant<int, kWideMaxThreads>{});
     }
     return (int)cudaErrorInvalidValue;
   };

@@ -46,12 +46,13 @@
 // does not fit beside the weights at the tile sizes that fill one wave).
 // Both are in bilstm_fwd_wide_mma.cu (bf16 at H = 128 and 256: one bf16
 // weight copy leaves room for two h tiles), which takes those shapes over;
-// this kernel keeps f32 and the other bf16 widths. Up to H = 256 it runs
-// in blocks instantiated for 256 threads (255 registers a thread); H = 257
-// to 288 (the bf16 layers of JAX's lite plan past 256, padded to 288)
-// takes a second instance for 288-thread blocks (224 registers a thread),
-// whose slice (162 KB at 288) and h tile still fit shared memory at 2, 4
-// and 7 rows a thread.
+// this kernel keeps the other widths (96, 160, 192, 224 in either dtype;
+// bilstm_fwd_wide_f32.cu takes f32 at 128, 256 and 288, which reach this
+// kernel by name). Up to H = 256 it runs in blocks instantiated for 256
+// threads (255 registers a thread); f32 at H = 257 to 288, by name, takes a
+// second instance for 288-thread blocks (224 registers a thread), whose
+// slice (162 KB at 288) and h tile still fit shared memory at 2, 4 and 7
+// rows a thread.
 
 #include <cooperative_groups.h>
 
@@ -190,7 +191,8 @@ const char* bilstm_fwd_wide_error_string(int err) {
 // dtype 0: float32, 1: bfloat16; rows_per_thread one of kWideRows; xg
 // (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G, 4H, H) with B % G == 0;
 // hs_f, hs_b (and cs_f, cs_b, null for the eval variant) (T, B, H) in the
-// dtype; hn, cn (2, B, H) f32. H % 32 == 0, H <= kWideMaxThreads; `tiles`
+// dtype; hn, cn (2, B, H) f32. H % 32 == 0, H <= kWideMaxThreads (f32) or
+// kWideSmallThreads (bf16); `tiles`
 // = G * ceil((B / G) / (8 * rows_per_thread)). With max_clusters non-null,
 // nothing is launched: *max_clusters receives how many clusters of this
 // configuration the card holds at once. Returns a cudaError_t (0 on success).
@@ -198,7 +200,7 @@ int bilstm_fwd_wide(int dtype, int rows_per_thread, const void* xg, const void* 
                     const void* w_hh, void* hs_f, void* hs_b, void* cs_f, void* cs_b, void* hn,
                     void* cn, int T_steps, int B, int H, int G, int tiles, int smem,
                     void* stream, int* max_clusters) {
-  return dispatch_wide(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
+  auto launch = [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
     return launch_wide(bilstm_fwd_wide_kernel<decltype(r)::value, T, decltype(n)::value>, tiles, H,
                        smem, static_cast<cudaStream_t>(stream), max_clusters,
@@ -206,7 +208,8 @@ int bilstm_fwd_wide(int dtype, int rows_per_thread, const void* xg, const void* 
                        static_cast<const T*>(w_hh), static_cast<T*>(hs_f),
                        static_cast<T*>(hs_b), static_cast<T*>(cs_f), static_cast<T*>(cs_b),
                        static_cast<float*>(hn), static_cast<float*>(cn), T_steps, B, H, G);
-  });
+  };
+  return dispatch_wide<kWideMaxThreads, kWideSmallThreads>(dtype, rows_per_thread, H, launch);
 }
 
 }  // extern "C"

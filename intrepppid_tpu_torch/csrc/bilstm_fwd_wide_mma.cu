@@ -2,8 +2,9 @@
 // dtype, for layers whose weights fit no block: the tensor-core variant,
 // hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_fwd_wide.cu (which keeps f32 and the widths this
-// kernel does not take), together with bilstm_gates_mma.cu (the input
+// Replaces, like bilstm_fwd_wide.cu (which keeps the widths this kernel
+// does not take) and bilstm_fwd_wide_f32.cu (f32), together with
+// bilstm_gates_mma.cu (the input
 // projection), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _fwd_kernel (via _fwd_pallas,
 //     :376) -- the wide route's recurrence (ops/lstm_cuda.py:layer_route;

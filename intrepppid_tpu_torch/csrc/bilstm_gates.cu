@@ -33,9 +33,10 @@
 // fetched into registers while the current one is multiplied, one barrier
 // per slice. A 16-column slice lies inside one input part (each part's
 // width is a multiple of 16).
-// bf16 operands take bilstm_gates_mma.cu (the same product on the tensor
-// cores; ops/lstm_cuda.py:gates_kernel); this kernel keeps f32. Not yet
-// done: f32 on the tensor cores (three tf32 passes) and TMA copies.
+// Every shape now takes a tensor-core kernel (ops/lstm_cuda.py:
+// gates_kernel): bilstm_gates_mma.cu in bf16, bilstm_gates_f32.cu in f32
+// (three tf32 passes); this kernel is reached by name only, to time it
+// beside them.
 
 #include "bilstm_common.cuh"
 

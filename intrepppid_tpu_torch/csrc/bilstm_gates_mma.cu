@@ -1,7 +1,7 @@
 // Input projection of a bidirectional LSTM layer, bf16 compute dtype: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_gates.cu (which keeps f32), the input-gate product
+// Replaces, like bilstm_gates_f32.cu (f32), the input-gate product
 // that the TPU kernels form in their own body:
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _xg2 (:255-283), called by
 //     _fwd_kernel (row 3, via _fwd_pallas) and _bwd_kernel with

@@ -2,7 +2,8 @@
 // (bilstm_bwd_mma.cu, lstm_recurrence_bwd_mma.cu, bilstm_fwd_mma.cu,
 // bilstm_wgrad_mma.cu, lstm_recurrence_wgrad_mma.cu, bilstm_bwd_f32.cu,
 // bilstm_fwd_f32.cu, lstm_recurrence_bwd_f32.cu, bilstm_gates_mma.cu,
-// bilstm_bwd_lite_mma.cu, bilstm_fwd_wide_mma.cu, bilstm_wgrad_f32.cu):
+// bilstm_bwd_lite_mma.cu, bilstm_fwd_wide_mma.cu, bilstm_wgrad_f32.cu,
+// bilstm_gates_f32.cu, and through the recurrence headers the wide ones):
 // warp-level mma.sync m16n8k16 (bf16 operands, f32 accumulators) and
 // m16n8k8 (tf32 operands, for the three-pass f32 products), ldmatrix
 // fragment loads from shared memory, cp.async tile copies, the gate-row

@@ -39,7 +39,7 @@
 // step's h_prev tile, input gates, c_prev, dhs and mask bytes are loaded
 // into registers while the current step computes. All streams are addressed
 // in the op's own (T, D, B, .) layout: no transposed copy.
-// Widths it keeps: H = 96 to 1024 in either compute dtype (a one-layer
+// Widths it keeps: H = 96 to 288 in either compute dtype (a one-layer
 // model at embedding 128 on the recurrence backend); H = 32 and 64 go to
 // the single-block tensor-core sweeps, lstm_recurrence_bwd_mma.cu (bf16)
 // and lstm_recurrence_bwd_f32.cu (f32)
@@ -47,10 +47,8 @@
 // instantiated for 256 threads (255 registers a thread); H = 257 to 288 a
 // second instance for 288-thread blocks (224 registers), whose padded f32
 // slice (167 KB at 288), h tile and gate tile still fit shared memory. Past
-// 288 they do not (about 240 KB at 320), so a third instance, for blocks of
-// up to kRecMaxH = 1024 threads (64 registers a thread), reads the slice
-// from the global copy of lstm_recurrence_fwd.cu's design (unpadded rows of
-// 4U, L2-resident) and keeps only the h and gate tiles in shared memory.
+// 288 they do not (about 240 KB at 320): the op takes the tensor-core
+// sweeps there (lstm_recurrence_bwd_wide_mma.cu, lstm_recurrence_bwd_wide_f32.cu).
 
 #include <cooperative_groups.h>
 
@@ -66,13 +64,11 @@ constexpr int kPad = 4;  // shared-memory weight row padding (elements)
 
 // grid (tiles * kWideCluster, D) in clusters of kWideCluster, block H
 // threads (H <= kThreads); row tile BR = kWideCluster * R. dhs, dhn, dcn may
-// be null (zero). Past kWideMaxThreads the weight slice is read from `wl`,
-// the global copy.
+// be null (zero).
 template <int R, typename T, int kThreads>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_bwd_kernel(const float* __restrict__ xg, const uint8_t* __restrict__ valid,
-                           const T* __restrict__ w, const float* __restrict__ wl,
-                           const float* __restrict__ hs,
+                           const T* __restrict__ w, const float* __restrict__ hs,
                            const float* __restrict__ cs, const float* __restrict__ dhs,
                            const float* __restrict__ dhn, const float* __restrict__ dcn,
                            float* __restrict__ dxg, int T_steps, int B, int H, int G) {
@@ -83,8 +79,7 @@ lstm_recurrence_bwd_kernel(const float* __restrict__ xg, const uint8_t* __restri
   const int D = gridDim.y;
   const int U = H / kWideCluster;
   const int U4 = 4 * U;
-  constexpr bool kGlobalW = kThreads > kWideMaxThreads;
-  const int WS = kGlobalW ? U4 : U4 + kPad;
+  const int WS = U4 + kPad;
   const int H4 = 4 * H;
   const int ul = threadIdx.x % U;
   const int rg = threadIdx.x / U;
@@ -94,22 +89,14 @@ lstm_recurrence_bwd_kernel(const float* __restrict__ xg, const uint8_t* __restri
   const int group = tile_row(tile, 0, BR, Bg) / Bg;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const float* w_s;  // [H][WS], [unit*4 + gate]: this block's slice of w[d, group]
-  float* hp_s;       // [BR][H]: h_prev, then the partial dh
-  if constexpr (kGlobalW) {
-    w_s = wl + (((size_t)d * G + group) * kWideCluster + rank) * H * U4;
-    hp_s = reinterpret_cast<float*>(smem);
-  } else {
-    float* ws = reinterpret_cast<float*>(smem);
-    const T* wd = w + ((size_t)d * G + group) * H * H4;
-    for (int idx = threadIdx.x; idx < H * U4; idx += blockDim.x) {
-      const int k = idx / U4, lc = idx - k * U4;
-      const int q = lc / U, u = lc - q * U;
-      ws[(size_t)k * WS + u * 4 + q] = to_f32(wd[(size_t)k * H4 + q * H + rank * U + u]);
-    }
-    w_s = ws;
-    hp_s = ws + (size_t)H * WS;
+  float* w_s = reinterpret_cast<float*>(smem);  // [H][WS], [unit*4 + gate]: w[d, group]'s slice
+  const T* wd = w + ((size_t)d * G + group) * H * H4;
+  for (int idx = threadIdx.x; idx < H * U4; idx += blockDim.x) {
+    const int k = idx / U4, lc = idx - k * U4;
+    const int q = lc / U, u = lc - q * U;
+    w_s[(size_t)k * WS + u * 4 + q] = to_f32(wd[(size_t)k * H4 + q * H + rank * U + u]);
   }
+  float* hp_s = w_s + (size_t)H * WS;  // [BR][H]: h_prev, then the partial dh
   float* dg_s = hp_s + (size_t)BR * H;  // [BR][4U], [unit*4 + gate]
 
   int row[R];
@@ -215,27 +202,7 @@ lstm_recurrence_bwd_kernel(const float* __restrict__ xg, const uint8_t* __restri
 
     // partial dh over all H units from this block's gate columns:
     // thread k, rows in kWideCluster chunks of R
-    if constexpr (kGlobalW) {
-      // weight row k read once a step from L2 (not once a chunk) and used
-      // for every row of the tile: the same sums in the same order
-      const int k = threadIdx.x;
-      const float* wk = w_s + (size_t)k * WS;
-      constexpr int kRows = kWideCluster * R;
-      float p[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) p[r] = 0.0f;
-#pragma unroll 1
-      for (int c = 0; c < U4; c += 4) {
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wk + c));
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 gv = *reinterpret_cast<const float4*>(dg_s + (size_t)r * U4 + c);
-          p[r] = fmaf(gv.w, wv.w, fmaf(gv.z, wv.z, fmaf(gv.y, wv.y, fmaf(gv.x, wv.x, p[r]))));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) hp_s[(size_t)r * H + k] = p[r];
-    } else {
+    {
       const int k = threadIdx.x;
       const float* wk = w_s + (size_t)k * WS;
 #pragma unroll 1
@@ -281,7 +248,7 @@ extern "C" {
 
 int lstm_recurrence_bwd_cluster() { return kWideCluster; }
 int lstm_recurrence_bwd_max_threads() { return kWideMaxThreads; }
-int lstm_recurrence_bwd_max_h() { return kRecMaxH; }
+int lstm_recurrence_bwd_max_h() { return kWideMaxThreads; }
 int lstm_recurrence_bwd_rows_mask() { return kWideRowsMask; }
 int lstm_recurrence_bwd_pad() { return kPad; }
 
@@ -293,22 +260,20 @@ const char* lstm_recurrence_bwd_error_string(int err) {
 // rounding of h_prev and dgates); rows_per_thread one of kWideRows; xg
 // (T, D, B, 4H) f32; valid (T, D, B) uint8; w (D, G, H, 4H); hs, cs, dhs
 // (T, D, B, H) f32 (dhs may be null: zero); dhn / dcn (D, B, H) f32 or null
-// (zero); dxg (T, D, B, 4H) f32; wl as for lstm_recurrence_fwd. H % 32 ==
-// 0, H <= kRecMaxH; `tiles` as for lstm_recurrence_fwd. With max_clusters non-null, nothing is
+// (zero); dxg (T, D, B, 4H) f32. H % 32 == 0, H <= kWideMaxThreads; `tiles`
+// as for lstm_recurrence_fwd. With max_clusters non-null, nothing is
 // launched (see lstm_recurrence_fwd). Returns a cudaError_t (0 on success).
 int lstm_recurrence_bwd(int dtype, int rows_per_thread, const void* xg, const void* valid,
-                        const void* w, const void* wl, const void* hs, const void* cs,
+                        const void* w, const void* hs, const void* cs,
                         const void* dhs, const void* dhn, const void* dcn, void* dxg, int D,
                         int T_steps, int B, int H, int G, int tiles, int smem, void* stream,
                         int* max_clusters) {
-  if (H > kWideMaxThreads && !max_clusters && !wl) return (int)cudaErrorInvalidValue;
-  return dispatch_wide<true>(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
+  return dispatch_wide(dtype, rows_per_thread, H, [&](auto r, auto t, auto n) -> int {
     using T = decltype(t);
     return launch_wide_dirs(lstm_recurrence_bwd_kernel<decltype(r)::value, T, decltype(n)::value>,
                             tiles, D, H, smem, static_cast<cudaStream_t>(stream), max_clusters,
                             static_cast<const float*>(xg), static_cast<const uint8_t*>(valid),
-                            static_cast<const T*>(w), static_cast<const float*>(wl),
-                            static_cast<const float*>(hs),
+                            static_cast<const T*>(w), static_cast<const float*>(hs),
                             static_cast<const float*>(cs), static_cast<const float*>(dhs),
                             static_cast<const float*>(dhn), static_cast<const float*>(dcn),
                             static_cast<float*>(dxg), T_steps, B, H, G);

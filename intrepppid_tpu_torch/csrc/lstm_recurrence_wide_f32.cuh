@@ -2,9 +2,10 @@
 // copy in mma fragment order from L2 (ops/lstm_cuda.py:recurrence_f32_weights):
 // the recurrence op's sweep and forward past 288 units
 // (lstm_recurrence_bwd_wide_f32.cu, lstm_recurrence_fwd_wide_f32.cu) and the
-// layer's f32 lite sweep (bilstm_bwd_lite_f32.cu). Each product runs in three
-// tf32 passes, big.big + big.small + small.big, with both operands split in
-// registers (split_tf32, bilstm_mma.cuh): one tf32 pass keeps ~3 decimal
+// layer's f32 lite sweep and wide forward (bilstm_bwd_lite_f32.cu,
+// bilstm_fwd_wide_f32.cu). Each product runs in three tf32 passes,
+// big.big + big.small + small.big, with both operands split in registers
+// (split_tf32, bilstm_mma.cuh): one tf32 pass keeps ~3 decimal
 // digits, which misses the f32 agreement (1e-4 x max(1, max|ref|)) by 3-4 x.
 //
 // The copy: for each (d, g), unit group of 8, k8 step kk of the H inputs

@@ -44,20 +44,23 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
   * ``bilstm_gates`` is the input projection those TPU kernels form in
     their body (``_xg2``), by one of two kernels (``gates_kernel``):
     ``bilstm_gates_mma`` launches ``csrc/bilstm_gates_mma.cu`` (bf16: a GEMM
-    on the tensor cores), ``bilstm_gates`` itself launches
-    ``csrc/bilstm_gates.cu`` (f32, CUDA cores). Plain twin of both:
-    ``ops/lstm.py:input_gates``.
+    on the tensor cores), ``bilstm_gates_f32`` launches
+    ``csrc/bilstm_gates_f32.cu`` (f32: the same GEMM in three tf32 passes);
+    ``bilstm_gates`` itself launches ``csrc/bilstm_gates.cu`` (CUDA cores)
+    by name only. Plain twin of all three: ``ops/lstm.py:input_gates``.
   * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` are the
     recurrence over those gates with ``W_hh`` split over a cluster of 8
-    blocks, by one of two kernels (``wide_fwd_kernel``):
+    blocks, by one of three kernels (``wide_fwd_kernel``):
     ``bilstm_fwd_wide_mma`` and ``bilstm_fwd_wide_train_mma`` launch
     ``csrc/bilstm_fwd_wide_mma.cu`` (bf16, H = 128, 256 and 288: the product
     on the tensor cores; at 288 an instance whose cluster splits the unit
-    groups 4 / 5 a block), the two wrappers themselves launch
-    ``csrc/bilstm_fwd_wide.cu`` for the rest (f32, and the bf16 widths the
-    tensor-core forward does not take; CUDA cores). With ``bilstm_gates``,
-    the counterpart of ``_fwd_pallas`` at these widths. Plain twin of both:
-    ``ops/lstm.py:bidir_recurrence``.
+    groups 4 / 5 a block), ``bilstm_fwd_wide_f32`` and
+    ``bilstm_fwd_wide_train_f32`` launch ``csrc/bilstm_fwd_wide_f32.cu``
+    (f32 at those widths: three tf32 passes on the lite sweep's f32
+    fragment copy of ``W_hh^T``), the two wrappers themselves launch
+    ``csrc/bilstm_fwd_wide.cu`` for the rest (96, 160, 192 and 224; CUDA
+    cores). With ``bilstm_gates``, the counterpart of ``_fwd_pallas`` at
+    these widths. Plain twin of all three: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
     out), by one of three kernels (``lite_kernel``):
@@ -85,10 +88,8 @@ Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
-of its own: three on the wide route's cluster design at every width they
-take (past 288 the forward and the sweep, reached there by name only,
-read their weight slices from an L2-resident global copy,
-``recurrence_global_weights``), and six tensor-core ones:
+of its own: three on the wide route's cluster design (the forward and the
+sweep up to 288 units, wgrad at every width), and six tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
   _fwd_pallas``, by one of three kernels (``recurrence_fwd_kernel``):
@@ -196,15 +197,20 @@ SMEM_LIMIT = 232448
 # (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
 # and lstm_recurrence_{fwd,bwd}_wide_f32.cu (kWideCluster, kThreads, their padding,
 # kMinH, kRecMaxH, the row tiles of each instance), bilstm_bwd_lite_f32.cu
-# (kWideCluster, kThreads, kFPad, its row tiles and widths)
+# (kWideCluster, kThreads, kFPad, its row tiles and widths), bilstm_gates_f32.cu
+# (kBM, kBN, kBK, kStages, kSmem), bilstm_fwd_wide_f32.cu (kWideCluster,
+# kThreads, kFPad, its widths and its row tiles)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
 GATES_TILE_N, GATES_TILE_K = 128, 16
 # the wide kernels' blocks hold H threads, one per unit: at most 288 (a
-# second instance past 256); the recurrence kernels' up to REC_MAX_H, past
-# 288 with their weight slices in global memory
+# second instance past WIDE_SMALL_THREADS, built where a route takes 257-288
+# units in the dtype: the recurrence op's in both, the CUDA-core forward's
+# in f32, the CUDA-core lite sweep's in neither); the recurrence op's
+# widest H on the card (its tensor-core kernels past 288)
 WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
+WIDE_SMALL_THREADS = 256
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
@@ -286,6 +292,21 @@ REC_WIDE_F32_FWD_ROWS = {1: (32, 48), 2: (16,)}
 # instantiated for (its threads are the bf16 one's, its padding the op
 # sweep's)
 LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 256, 288), (16, 32)
+# the f32 tensor-core input gates (three tf32 passes): the bf16 one's
+# block tile, input columns a stage (64 bytes of a row), cp.async stages,
+# and its dynamic shared memory (f32 rows padded by 4)
+GATES_F32_TILE_K, GATES_F32_STAGES = 16, 4
+GATES_F32_SMEM = GATES_F32_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
+    GATES_F32_TILE_K + 4) * 4
+# the f32 tensor-core wide forward (three tf32 passes on the lite sweep's f32
+# fragment copy, read from L2): its widths and its row tiles where each
+# block holds the same unit groups (128, 256)
+FWD_WIDE_F32_WIDTHS = (128, 256, 288)
+FWD_WIDE_F32_ROWS = (16, 32)
+# its row tiles at 288 (4 or 5 unit groups a block): a 32-row tile gives
+# the 5-group blocks' lone warps 4 items, and its one wave took 1.23 x two
+# waves of 16-row tiles (PERF.md)
+FWD_WIDE_F32_UNEVEN_ROWS = (16,)
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
@@ -318,8 +339,8 @@ _SIGNATURES = {
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
-    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 8 + [_I] * 7 + [_P, _P]),
-    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 10 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
@@ -337,6 +358,8 @@ _SIGNATURES = {
                                      [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "bilstm_bwd_lite_f32": ("bilstm_bwd_lite_f32", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
+    "bilstm_gates_f32": ("bilstm_gates_f32", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
+    "bilstm_fwd_wide_f32": ("bilstm_fwd_wide_f32", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -380,7 +403,7 @@ _CONSTANTS = {
                         (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
     "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
                          "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
-                        (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
+                        (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
     "bilstm_gates_mma": (("bilstm_gates_mma_tile_m", "bilstm_gates_mma_tile_n",
                           "bilstm_gates_mma_tile_k", "bilstm_gates_mma_stages",
                           "bilstm_gates_mma_smem"),
@@ -391,12 +414,12 @@ _CONSTANTS = {
                             (WIDE_CLUSTER, LITE_MMA_THREADS, MMA_PAD, LITE_MMA_XG_PAD)),
     "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
                              "lstm_recurrence_fwd_rows_mask", "lstm_recurrence_fwd_max_h"),
-                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, REC_MAX_H)),
+                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_MAX_THREADS)),
     "lstm_recurrence_bwd": (("lstm_recurrence_bwd_cluster", "lstm_recurrence_bwd_max_threads",
                              "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad",
                              "lstm_recurrence_bwd_max_h"),
                             (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD,
-                             REC_MAX_H)),
+                             WIDE_MAX_THREADS)),
     "lstm_recurrence_bwd_mma": (("lstm_recurrence_bwd_mma_tile",
                                  "lstm_recurrence_bwd_mma_stages",
                                  "lstm_recurrence_bwd_mma_max_chunks",
@@ -451,6 +474,16 @@ _CONSTANTS = {
         (WIDE_CLUSTER, LITE_MMA_THREADS, REC_WIDE_F32_PAD,
          sum(1 << (r // 8) for r in LITE_F32_ROWS),
          sum(h << (10 * (len(LITE_F32_WIDTHS) - 1 - i)) for i, h in enumerate(LITE_F32_WIDTHS)))),
+    "bilstm_gates_f32": (tuple(f"bilstm_gates_f32_{c}" for c in (
+        "tile_m", "tile_n", "tile_k", "stages", "smem")),
+        (GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_F32_TILE_K, GATES_F32_STAGES, GATES_F32_SMEM)),
+    "bilstm_fwd_wide_f32": (tuple(f"bilstm_fwd_wide_f32_{c}" for c in (
+        "cluster", "threads", "pad", "widths", "rows")),
+        (WIDE_CLUSTER, LITE_MMA_THREADS, REC_WIDE_F32_PAD,
+         sum(h << (10 * (len(FWD_WIDE_F32_WIDTHS) - 1 - i))
+             for i, h in enumerate(FWD_WIDE_F32_WIDTHS)),
+         sum(sum(1 << (r // 8) for r in rows) << (8 * i)
+             for i, rows in enumerate((FWD_WIDE_F32_ROWS, FWD_WIDE_F32_UNEVEN_ROWS))))),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -990,13 +1023,14 @@ def layer_route(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
 
 def gates_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's input gates take, by shape and dtype
-    alone: ``"bilstm_gates_mma"`` for bfloat16 (the tensor cores; every
-    shape ``wide_check`` admits), ``"bilstm_gates"`` for float32 (CUDA
-    cores); ValueError for a dtype or shape neither takes."""
+    alone, at every shape ``wide_check`` admits: ``"bilstm_gates_mma"`` for
+    bfloat16, ``"bilstm_gates_f32"`` for float32 (both on the tensor cores,
+    the latter in three tf32 passes); ValueError for a dtype or shape
+    neither takes. (``csrc/bilstm_gates.cu`` is reached by name only.)"""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"bilstm gates kernels take float32 or bfloat16, got {dtype}")
     wide_check(H, E_parts)
-    return "bilstm_gates_mma" if dtype == torch.bfloat16 else "bilstm_gates"
+    return "bilstm_gates_mma" if dtype == torch.bfloat16 else "bilstm_gates_f32"
 
 
 def lite_mma_check(H: int, dtype: torch.dtype) -> None:
@@ -1059,22 +1093,39 @@ def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
             f"got {dtype}, H={H}")
 
 
+def fwd_wide_f32_check(H: int, dtype: torch.dtype) -> None:
+    """ValueError for a dtype or width the f32 tensor-core wide forward
+    (``csrc/bilstm_fwd_wide_f32.cu``, three tf32 passes) does not take: it
+    takes float32 at H in ``FWD_WIDE_F32_WIDTHS``, 128, 256 and 288, the
+    widths of the bf16 one and of the f32 lite sweep."""
+    if dtype != torch.float32 or H not in FWD_WIDE_F32_WIDTHS:
+        raise ValueError(
+            f"bilstm_fwd_wide_f32 kernel takes float32 with H in {list(FWD_WIDE_F32_WIDTHS)}, "
+            f"got {dtype}, H={H}")
+
+
 def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
-    (bf16, H = 128, 256 or 288), else ``"bilstm_fwd_wide"`` where ``wide_check``
-    passes (f32, and the bf16 widths the tensor-core forward does not take);
-    ValueError naming both refusals otherwise."""
-    try:
-        fwd_wide_mma_check(H, dtype)
-        return "bilstm_fwd_wide_mma"
-    except ValueError as mma:
+    (bf16, H = 128, 256 or 288), ``"bilstm_fwd_wide_f32"`` where
+    ``fwd_wide_f32_check`` passes (f32 at those widths), else
+    ``"bilstm_fwd_wide"`` where ``wide_check`` passes (the widths the
+    tensor-core forwards do not take: 96, 160, 192, 224 in either dtype);
+    ValueError naming the refusals otherwise."""
+    refusals = []
+    for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
+                        ("bilstm_fwd_wide_f32", fwd_wide_f32_check)):
         try:
-            if dtype not in _DTYPE_CODES:
-                raise ValueError(f"bilstm_fwd_wide kernel takes float32 or bfloat16, got {dtype}")
-            wide_check(H)
-        except ValueError as cores:
-            raise ValueError(f"{cores}; {mma}") from None
+            check(H, dtype)
+            return name
+        except ValueError as e:
+            refusals.append(str(e))
+    try:
+        if dtype not in _DTYPE_CODES:
+            raise ValueError(f"bilstm_fwd_wide kernel takes float32 or bfloat16, got {dtype}")
+        wide_check(H)
+    except ValueError as cores:
+        raise ValueError("; ".join([str(cores)] + refusals)) from None
     return "bilstm_fwd_wide"
 
 
@@ -1105,7 +1156,18 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     "lite_mma_uneven" is that instance at any width (at 256, by name only).
     ``kind`` "lite_f32" (the f32 tensor-core sweep, ``csrc/bilstm_bwd_lite_f32.cu``):
     the op sweep's f32 h_prev tile, dgates tile and one partial buffer, its
-    weights read from L2 (the formula of ``recurrence_wide_f32_smem``)."""
+    weights read from L2 (the formula of ``recurrence_wide_f32_smem``).
+    ``kind`` "fwd_f32" (the f32 tensor-core forward,
+    ``csrc/bilstm_fwd_wide_f32.cu:smem_bytes``): its two f32 h tiles and
+    its staged new h, sized for the block of ceil(H / 64) unit groups; its
+    weights are read from L2."""
+    if kind == "fwd_f32":
+        fwd_wide_f32_check(H, torch.float32)
+        if rows not in (FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS):
+            raise ValueError(f"bilstm_fwd_wide_f32: no instance for a row tile of {rows} "
+                             f"at H={H}")
+        return (2 * rows * (H + REC_WIDE_F32_PAD) * 4
+                + rows * (8 * -(-H // 64) + REC_WIDE_F32_PAD) * 4)
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         return recurrence_wide_mma_smem(kind[4:7], H, rows)
     if kind in ("rec_fwd_f32", "rec_bwd_f32"):
@@ -1130,10 +1192,6 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
                 + BR * (4 * U + pad) * 2 + buffers * H * _lite_mma_part_stride(BR) * 4)
     BR = WIDE_CLUSTER * rows
     w_slice = H * (4 * U + (WIDE_PAD if kind == "bwd" else 0)) * 4
-    if H > WIDE_MAX_THREADS:
-        # only the recurrence kernels run there, their weight slice read
-        # from global memory (``recurrence_global_weights``)
-        w_slice = 0
     if kind == "fwd":
         return w_slice + BR * H * 4
     return w_slice + BR * H * 4 + BR * 4 * U * 4
@@ -1157,7 +1215,9 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     H = 288), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
     "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32",
     ``REC_WIDE_F32_FWD_ROWS`` at H for "rec_fwd_f32", ``LITE_F32_ROWS`` for
-    "lite_f32") for the tensor-core ones.
+    "lite_f32", ``FWD_WIDE_F32_ROWS`` for "fwd_f32" (``FWD_WIDE_F32_UNEVEN_ROWS``
+    at H = 288))
+    for the tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
@@ -1171,13 +1231,14 @@ def wide_plan(kind: str, B: int, G: int, H: int,
                 else REC_WIDE_F32_ROWS)[1 if H <= 512 else 2]
     if kind == "lite_f32":
         rows = LITE_F32_ROWS
+    if kind == "fwd_f32":
+        rows = FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = (mma_tiles(B, G, R) if kind.endswith(("_mma", "_f32", "_uneven"))
-                 else wide_tiles(B, G, R))
+        tiles = (wide_tiles(B, G, R) if kind in ("fwd", "bwd") else mma_tiles(B, G, R))
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -1192,12 +1253,13 @@ _cluster_counts: Dict[tuple, int] = {}
 _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
                 "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
-                "lstm_recurrence_fwd": [None] * 8 + [1], "lstm_recurrence_bwd": [None] * 10 + [1],
+                "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
                 "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
                 "lstm_recurrence_fwd_wide_f32": [None] * 7 + [1],
-                "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3}
+                "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3,
+                "bilstm_fwd_wide_f32": [None] * 9}
 
 
 def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
@@ -1612,7 +1674,8 @@ def bilstm_bwd(
     (bf16), :func:`bilstm_bwd_f32` or :func:`bilstm_bwd_f32_onestage` (f32),
     whose ``.launches`` then counts it, or ``csrc/bilstm_bwd.cu`` here.
     ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
-    the others); a shape it does not take raises."""
+    the others; not in bf16 at E = H = 80, where the tensor-core sweep's
+    <80, 80> instance took over); a shape it does not take raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1623,6 +1686,10 @@ def bilstm_bwd(
         dyf, dyb, dhn, dcn, cd)
     if kernel not in (None, "bilstm_bwd", *_TILE_SWEEPS):
         raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
+    if kernel == "bilstm_bwd" and cd == torch.bfloat16 and H > MMA_MAX_H \
+            and sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma":
+        raise ValueError("bilstm_bwd: csrc/bilstm_bwd.cu is not asked for by name where the "
+                         f"bf16 tensor-core sweep takes H={H} past {MMA_MAX_H}")
     kernel = kernel or sweep_kernel(E_parts, H, cd)
     if kernel != "bilstm_bwd":
         return _TILE_SWEEPS[kernel](x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1997,20 +2064,21 @@ def bilstm_gates(
     ``(T, B, E_i)`` parts and ``w_ih (2, 4H, E)`` in ``compute_dtype`` and
     the f32 ``bias (2, 4H)``.
 
-    On the card the product runs on the kernel ``gates_kernel`` names: the
-    tensor-core one through :func:`bilstm_gates_mma` (bf16; its
-    ``.launches`` then counts it), or ``csrc/bilstm_gates.cu`` here.
-    ``kernel="bilstm_gates"`` asks for the latter by name (to time it beside
-    the other)."""
+    On the card the product runs on the kernel ``gates_kernel`` names: a
+    tensor-core one through :func:`bilstm_gates_mma` (bf16) or
+    :func:`bilstm_gates_f32` (f32; their ``.launches`` then count them).
+    ``kernel="bilstm_gates"`` asks for ``csrc/bilstm_gates.cu`` (CUDA cores)
+    by name, launched here (to time it beside the others)."""
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return input_gates(x_parts, w_ih, bias, compute_dtype)
-    if kernel not in (None, "bilstm_gates", "bilstm_gates_mma"):
+    tensor_core = {"bilstm_gates_mma": bilstm_gates_mma, "bilstm_gates_f32": bilstm_gates_f32}
+    if kernel not in (None, "bilstm_gates", *tensor_core):
         raise ValueError(f"bilstm_gates: no input-gate kernel named {kernel!r}")
     cd = compute_dtype
     name = kernel or gates_kernel([p.shape[-1] for p in x_parts], w_ih.shape[1] // 4, cd)
-    if name == "bilstm_gates_mma":
-        return bilstm_gates_mma(x_parts, w_ih, bias, cd)
+    if name in tensor_core:
+        return tensor_core[name](x_parts, w_ih, bias, cd)
     if cd not in _DTYPE_CODES:
         raise ValueError(f"bilstm_gates kernel takes float32 or bfloat16, got {cd}")
     dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
@@ -2032,6 +2100,33 @@ def bilstm_gates(
 bilstm_gates.launches = 0
 
 
+def _gates_tensor_core(wrapper, dtype, x_parts, w_ih, bias, cd):
+    """The tensor-core input gates' body: ``wrapper`` names the kernel
+    (``csrc/<name>.cu``, which takes ``dtype`` alone) and counts its
+    launches. On the CPU the plain twin; under grad mode an operand that
+    requires grad is refused, and so is another dtype, on the CPU too."""
+    x_parts = tuple(x_parts)
+    _no_graph(*x_parts, w_ih, bias)
+    name = wrapper.__name__
+    if cd != dtype:
+        raise ValueError(f"{name} kernel takes {dtype}, got {cd}")
+    if not x_parts[0].is_cuda:
+        return input_gates(x_parts, w_ih, bias, cd)
+    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
+    xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if T * B == 0:
+        return xg
+    with torch.cuda.device(dev):
+        err = getattr(_kernels(name), name)(
+            _ptr(x_parts, 0), _ptr(x_parts, 1), E_parts[0],
+            E_parts[1] if len(E_parts) == 2 else 0, w_ih.data_ptr(), bias.data_ptr(),
+            xg.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    wrapper.launches += 1
+    return xg
+
+
 def bilstm_gates_mma(
     x_parts: Sequence[torch.Tensor],
     w_ih: torch.Tensor,
@@ -2044,29 +2139,31 @@ def bilstm_gates_mma(
     rest. Deterministic: the forward and the backward's recompute get the
     same bits. Its output carries no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too."""
-    x_parts = tuple(x_parts)
-    _no_graph(*x_parts, w_ih, bias)
-    if not x_parts[0].is_cuda:
-        return input_gates(x_parts, w_ih, bias, compute_dtype)
-    cd = compute_dtype
-    if cd != torch.bfloat16:
-        raise ValueError(f"bilstm_gates_mma kernel takes bfloat16, got {cd}")
-    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
-    xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
-    if T * B == 0:
-        return xg
-    with torch.cuda.device(dev):
-        err = _kernels("bilstm_gates_mma").bilstm_gates_mma(
-            _ptr(x_parts, 0), _ptr(x_parts, 1), E_parts[0],
-            E_parts[1] if len(E_parts) == 2 else 0, w_ih.data_ptr(), bias.data_ptr(),
-            xg.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error("bilstm_gates_mma", err)
-    bilstm_gates_mma.launches += 1
-    return xg
+    return _gates_tensor_core(bilstm_gates_mma, torch.bfloat16, x_parts, w_ih, bias,
+                              compute_dtype)
 
 
 bilstm_gates_mma.launches = 0
+
+
+def bilstm_gates_f32(
+    x_parts: Sequence[torch.Tensor],
+    w_ih: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The input projection of one layer in f32 on the tensor cores, three
+    tf32 passes a product (``csrc/bilstm_gates_f32.cu``); the contract of
+    :func:`bilstm_gates`. Takes float32 at every shape ``wide_check`` admits
+    and raises for the rest. Deterministic (no split-K, no atomics): the
+    forward and the backward's recompute get the same bits. Its output
+    carries no graph, so under grad mode it refuses an operand that requires
+    grad, on the CPU too."""
+    return _gates_tensor_core(bilstm_gates_f32, torch.float32, x_parts, w_ih, bias,
+                              compute_dtype)
+
+
+bilstm_gates_f32.launches = 0
 
 
 def _wide_operands(xg, lengths, w_hh, cd, what):
@@ -2088,9 +2185,9 @@ def _wide_operands(xg, lengths, w_hh, cd, what):
 
 
 def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
-    """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide" or
-    "bilstm_fwd_wide_mma") on the row tile its plan picks, counted on
-    ``wrapper``; an empty batch launches nothing."""
+    """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide",
+    "bilstm_fwd_wide_mma" or "bilstm_fwd_wide_f32") on the row tile its plan
+    picks, counted on ``wrapper``; an empty batch launches nothing."""
     dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
     hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
     hs_b = torch.empty_like(hs_f)
@@ -2101,13 +2198,17 @@ def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
     outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
     if B == 0:
         return outs
-    mma = name == "bilstm_fwd_wide_mma"
-    rows, tiles, smem = wide_plan("fwd_mma" if mma else "fwd", B, G, H,
-                                  _max_clusters(name, cd, H, dev))
+    if name == "bilstm_fwd_wide_f32":
+        # the lite sweep's f32 fragment copy of W_hh^T (2, G, H, 4H)
+        lead, kind, w = [], "fwd_f32", recurrence_f32_weights(w_hh.transpose(-1, -2))
+    else:
+        mma = name == "bilstm_fwd_wide_mma"
+        lead, kind, w = [] if mma else [_DTYPE_CODES[cd]], "fwd_mma" if mma else "fwd", w_hh
+    rows, tiles, smem = wide_plan(kind, B, G, H, _max_clusters(name, cd, H, dev))
     with torch.cuda.device(dev):
         err = getattr(_kernels(name), name)(
-            *([] if mma else [_DTYPE_CODES[cd]]), rows, xg.data_ptr(), lengths.data_ptr(),
-            w_hh.data_ptr(), hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
+            *lead, rows, xg.data_ptr(), lengths.data_ptr(),
+            w.data_ptr(), hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
             hn.data_ptr(), cn.data_ptr(), T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
         )
@@ -2116,11 +2217,19 @@ def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
     return outs
 
 
-def _fwd_wide_dispatch(wrapper, mma_wrapper, xg, lengths, w_hh, cd, kernel, with_states):
-    if kernel not in (None, "bilstm_fwd_wide", "bilstm_fwd_wide_mma"):
+def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
+    """``wrappers``: the CUDA-core wrapper, which counts
+    ``csrc/bilstm_fwd_wide.cu``, then the tensor-core ones by kernel name."""
+    wrapper, tensor_core = wrappers[0], dict(zip(("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32"),
+                                                  wrappers[1:]))
+    if kernel not in (None, "bilstm_fwd_wide", *tensor_core):
         raise ValueError(f"bilstm_fwd_wide: no wide forward kernel named {kernel!r}")
-    if (kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)) == "bilstm_fwd_wide_mma":
-        return mma_wrapper(xg, lengths, w_hh, cd)
+    name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
+    if name in tensor_core:
+        return tensor_core[name](xg, lengths, w_hh, cd)
+    if cd == torch.bfloat16 and xg.shape[-1] // 4 > WIDE_SMALL_THREADS:
+        raise ValueError(f"bilstm_fwd_wide: csrc/bilstm_fwd_wide.cu takes bfloat16 up to "
+                         f"H = {WIDE_SMALL_THREADS}, got H={xg.shape[-1] // 4}")
     _no_graph(xg, w_hh)
     return _fwd_wide_launch(wrapper, "bilstm_fwd_wide", xg, lengths, w_hh, cd, with_states)
 
@@ -2142,16 +2251,16 @@ def bilstm_fwd_wide(
         (2, B, H)`` f32.
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
-    its width and dtype: the tensor-core one through
-    :func:`bilstm_fwd_wide_mma` (bf16 at H = 128, 256 and 288; its ``.launches``
-    then counts it), or ``csrc/bilstm_fwd_wide.cu`` here.
-    ``kernel="bilstm_fwd_wide"`` asks for the latter by name (to time it
-    beside the other).
+    its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
+    (bf16 at H = 128, 256 and 288) or :func:`bilstm_fwd_wide_f32` (f32 there;
+    their ``.launches`` then count them), or ``csrc/bilstm_fwd_wide.cu``
+    here. ``kernel="bilstm_fwd_wide"`` asks for the latter by name (to time
+    it beside the others; bf16 up to 256 units).
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
-    return _fwd_wide_dispatch(bilstm_fwd_wide, bilstm_fwd_wide_mma, xg, lengths, w_hh,
-                              compute_dtype, kernel, False)
+    return _fwd_wide_dispatch((bilstm_fwd_wide, bilstm_fwd_wide_mma, bilstm_fwd_wide_f32), xg,
+                              lengths, w_hh, compute_dtype, kernel, False)
 
 
 bilstm_fwd_wide.launches = 0
@@ -2166,11 +2275,13 @@ def bilstm_fwd_wide_train(
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_fwd_wide`: also the cell streams
     ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``; its
-    tensor-core kernel through :func:`bilstm_fwd_wide_train_mma`."""
+    tensor-core kernels through :func:`bilstm_fwd_wide_train_mma` and
+    :func:`bilstm_fwd_wide_train_f32`."""
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
-    return _fwd_wide_dispatch(bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, xg, lengths,
-                              w_hh, compute_dtype, kernel, True)
+    return _fwd_wide_dispatch(
+        (bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32), xg,
+        lengths, w_hh, compute_dtype, kernel, True)
 
 
 bilstm_fwd_wide_train.launches = 0
@@ -2217,6 +2328,50 @@ def bilstm_fwd_wide_train_mma(
 bilstm_fwd_wide_train_mma.launches = 0
 
 
+def _fwd_wide_f32(wrapper, xg, lengths, w_hh, cd, with_states):
+    _no_graph(xg, w_hh)
+    fwd_wide_f32_check(xg.shape[-1] // 4, cd)
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, cd, with_states=with_states)
+    return _fwd_wide_launch(wrapper, "bilstm_fwd_wide_f32", xg, lengths, w_hh, cd, with_states)
+
+
+def bilstm_fwd_wide_f32(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's recurrence over its input gates in f32 on the tensor
+    cores, three tf32 passes a product (``csrc/bilstm_fwd_wide_f32.cu``:
+    8-block clusters on the f32 fragment copy of ``W_hh^T`` that
+    :func:`bilstm_bwd_lite_f32` reads, ``recurrence_f32_weights``), eval
+    variant; the contract of :func:`bilstm_fwd_wide`. Takes the widths
+    ``fwd_wide_f32_check`` takes (float32, H = 128, 256 and 288) and raises
+    for the rest, on the CPU too; the row tile is
+    ``wide_plan("fwd_f32", ...)``'s. Its outputs carry no graph, so under grad mode it
+    refuses an operand that requires grad, on the CPU too."""
+    return _fwd_wide_f32(bilstm_fwd_wide_f32, xg, lengths, w_hh, compute_dtype, False)
+
+
+bilstm_fwd_wide_f32.launches = 0
+
+
+def bilstm_fwd_wide_train_f32(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_fwd_wide_f32`: also the cell
+    streams ``cs_f, cs_b (T, B, H)`` in f32, after ``hn, cn``. It gives the
+    eval variant's ``hs`` bit for bit."""
+    return _fwd_wide_f32(bilstm_fwd_wide_train_f32, xg, lengths, w_hh, compute_dtype, True)
+
+
+bilstm_fwd_wide_train_f32.launches = 0
+
+
 def _lite_operands(what, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd):
     """Checked operands of a lite sweep kernel: ``(dev, T, B, H, G, w_hh)``."""
     if len(dyf) != len(dyb) or len(dyf) > 2:
@@ -2256,7 +2411,8 @@ def bilstm_bwd_lite(
     (bf16 at H = 128, 256 and 288) or :func:`bilstm_bwd_lite_f32` (f32
     there; their ``.launches`` then count them), or
     ``csrc/bilstm_bwd_lite.cu`` here. ``kernel="bilstm_bwd_lite"`` asks for
-    the latter by name (to time it beside the others)."""
+    the latter by name in bf16 at 128 and 256 (to time it beside the
+    others); it takes no width past 256 and no f32 width of the f32 sweep."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
@@ -2270,6 +2426,11 @@ def bilstm_bwd_lite(
     if kernel in tensor_core:
         return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
                                    dcn, cd)
+    H = xg.shape[-1] // 4
+    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in LITE_F32_WIDTHS):
+        raise ValueError(f"bilstm_bwd_lite: csrc/bilstm_bwd_lite.cu takes H <= "
+                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(LITE_F32_WIDTHS)}, "
+                         f"got {cd}, H={H}")
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
                                            cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -2748,20 +2909,12 @@ def recurrence_f32_smem(H: int) -> int:
                 + MMA_STAGES * MMA_TILE * (xs + ws + 2 * cs))
 
 
-def recurrence_global_weights(w: torch.Tensor) -> Optional[torch.Tensor]:
-    """The copy of ``w (D, G, H, 4H)`` the cluster kernels read past
-    ``WIDE_MAX_THREADS`` units when they are asked for by name (past 288 the
-    forward and the sweep are tensor-core ones in either dtype), where a
-    block's f32 slice no longer fits shared memory: f32, laid out as the
-    shared slices are, ``(D, G,
-    WIDE_CLUSTER, H, H / 8, 4)`` ([d][g][block][k][unit][gate]), so each
-    block reads one contiguous slice; None at the widths whose slices stay
-    in shared memory."""
-    D, G, H, _ = w.shape
-    if H <= WIDE_MAX_THREADS:
-        return None
-    U = H // WIDE_CLUSTER
-    return w.float().reshape(D, G, H, 4, WIDE_CLUSTER, U).permute(0, 1, 4, 2, 5, 3).contiguous()
+def _cluster_width(name: str, H: int) -> None:
+    """ValueError past ``WIDE_MAX_THREADS`` for the recurrence op's cluster
+    kernels, asked for by name: their weight slice fits shared memory up to
+    288 units, and past it the op takes the tensor-core kernels."""
+    if H > WIDE_MAX_THREADS:
+        raise ValueError(f"{name}: the cluster kernel takes H <= {WIDE_MAX_THREADS}, got H={H}")
 
 
 def _recurrence_operands(xg, valid, w, G, cd, what):
@@ -2800,8 +2953,9 @@ def lstm_recurrence_fwd(
     :func:`lstm_recurrence_fwd_wide_mma` or :func:`lstm_recurrence_fwd_wide_f32`
     (whose ``.launches`` then counts it; ``wf``, the f32 fragment copy
     ``recurrence_f32_weights(w)`` where the caller has it, goes to the
-    latter), or the cluster kernel here. ``kernel="lstm_recurrence_fwd"``
-    asks for the latter by name (to time it beside the others).
+    latter), or the cluster kernel here (up to 288 units).
+    ``kernel="lstm_recurrence_fwd"`` asks for the latter by name (to time it
+    beside the others).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
@@ -2816,6 +2970,7 @@ def lstm_recurrence_fwd(
         return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd)
     if kernel == "lstm_recurrence_fwd_wide_f32":
         return lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
+    _cluster_width(name, H)
     hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
     hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
@@ -2823,12 +2978,11 @@ def lstm_recurrence_fwd(
     if B * D == 0 or T == 0:
         return hs, cs, hn, cn
     R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    wl = recurrence_global_weights(w)
     with torch.cuda.device(dev):
         err = _kernels(name).lstm_recurrence_fwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), _opt_ptr(wl),
-            hs.data_ptr(), cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles,
-            smem, torch.cuda.current_stream(dev).cuda_stream, None,
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
         )
     _raise_on_error(name, err)
     lstm_recurrence_fwd.launches += 1
@@ -2950,9 +3104,9 @@ def lstm_recurrence_bwd(
     :func:`lstm_recurrence_bwd_wide_mma` or
     :func:`lstm_recurrence_bwd_wide_f32` (whose ``.launches`` then counts
     it; ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where
-    the caller has it, goes to the last), or the cluster kernel here.
-    ``kernel="lstm_recurrence_bwd"`` asks for the latter by name (to time it
-    beside the others)."""
+    the caller has it, goes to the last), or the cluster kernel here (up to
+    288 units). ``kernel="lstm_recurrence_bwd"`` asks for the latter by name
+    (to time it beside the others)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
@@ -2969,16 +3123,16 @@ def lstm_recurrence_bwd(
         return lstm_recurrence_bwd_wide_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel in _WIDE_SWEEP:
         return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    _cluster_width(name, H)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
         return dxg
     R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    wl = recurrence_global_weights(w)
     with torch.cuda.device(dev):
         err = _kernels(name).lstm_recurrence_bwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), _opt_ptr(wl),
-            hs.data_ptr(), cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn),
-            dxg.data_ptr(), D, T, B, H, G, tiles, smem,
+            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(), D, T,
+            B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
         )
     _raise_on_error(name, err)

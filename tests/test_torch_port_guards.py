@@ -63,7 +63,7 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage",
                        "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
-                       "bilstm_bwd_lite_f32"}
+                       "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -82,7 +82,7 @@ def test_every_kernel_source_is_built_and_bound():
     for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
-                      ("bilstm_gates_mma", "mma_bf16("),
+                      ("bilstm_gates_mma", "mma_bf16("), ("bilstm_gates_f32", "mma_tf32("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
                       ("bilstm_bwd_f32_onestage", "mma_tf32("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
@@ -124,9 +124,9 @@ def test_every_kernel_source_is_built_and_bound():
         assert "mapa_u32(" in body and "map_shared_rank(" not in body
     body = (_build.CSRC / "lstm_recurrence_bwd_wide_mma.cu").read_text().rsplit("#include", 1)[1]
     assert "movmatrix_trans(" in body and "mma_a4(" in body
-    # the f32 kernels that read one f32 copy of the fragments from L2 (the
-    # op's sweep and forward past 288, the layer's lite sweep) keep that
-    # split and exchange on the headers' helpers; their header holds the
+    # the f32 kernels that read one f32 copy of the fragments (the op's
+    # sweep and forward past 288, the layer's lite sweep and wide forward)
+    # keep that split and exchange on the headers' helpers; their header holds the
     # three tf32 passes (mma3), the split in registers, the chunk loads and
     # the dh product's fragments transposed through movmatrix
     header = (_build.CSRC / "lstm_recurrence_wide_f32.cuh").read_text()
@@ -136,7 +136,8 @@ def test_every_kernel_source_is_built_and_bound():
     for name, exchange, launch in (
             ("lstm_recurrence_bwd_wide_f32", "ld_dsmem_f2(", "launch_wide_dirs("),
             ("lstm_recurrence_fwd_wide_f32", "st_dsmem_v4(", "launch_wide_dirs("),
-            ("bilstm_bwd_lite_f32", "ld_dsmem_f2(", "launch_wide(")):
+            ("bilstm_bwd_lite_f32", "ld_dsmem_f2(", "launch_wide("),
+            ("bilstm_fwd_wide_f32", "st_dsmem_v4(", "launch_wide(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "lstm_recurrence_wide_f32.cuh"' in text
         body = text.rsplit("#include", 1)[1]
@@ -149,14 +150,16 @@ def test_every_kernel_source_is_built_and_bound():
     body = (_build.CSRC / "lstm_recurrence_fwd_wide_f32.cu").read_text().rsplit("#include", 1)[1]
     assert "gate_mma_f32<" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
-    # (256 threads, 288, and for the recurrence op up to 1024 threads with
-    # its weight slices read from the global copy)
-    for name in ("bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
-                 "lstm_recurrence_bwd"):
+    # (256 threads, and 288 where a route takes 257-288 units in the dtype:
+    # the recurrence op in both, the wide forward in f32, the lite sweep in
+    # neither); none reads its weight slice from a global copy
+    for name, dispatch in (
+            ("bilstm_fwd_wide", "dispatch_wide<kWideMaxThreads, kWideSmallThreads>("),
+            ("bilstm_bwd_lite", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
+            ("lstm_recurrence_fwd", "dispatch_wide("), ("lstm_recurrence_bwd", "dispatch_wide(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
-        recurrence = name.startswith("lstm_")
-        assert ("dispatch_wide<true>(" in text) == recurrence, name
-        assert ("kGlobalW" in text) == recurrence and "__launch_bounds__(kThreads, 1)" in text
+        assert dispatch in text and "wl" not in text.split(), name
+        assert "kGlobalW" not in text and "__launch_bounds__(kThreads, 1)" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the
@@ -166,7 +169,8 @@ def test_every_kernel_source_is_built_and_bound():
     # the one-stage sweep shares the f32 sweep's kernel
     for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_bwd_f32_onestage", 6, 12),
                              ("bilstm_fwd_f32", 3, 6),
-                             ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3)):
+                             ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3),
+                             ("bilstm_gates_f32", 3, 1)):
         text = kernel_source(name).rsplit("#include", 1)[1]
         assert text.count("mma_tf32(") == mma and text.count("split_tf32(") == split, name
 

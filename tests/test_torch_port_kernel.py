@@ -856,7 +856,7 @@ def test_recurrence_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     """The f32 tensor-core sweep past 288 takes the plain twin for CPU
     tensors, counting no launch, and refuses operands that require grad;
     ``lstm_recurrence_bwd`` hands f32 past 288 to it only on the card, and
-    reaches it and the global-weight instance by name."""
+    reaches it by name (the cluster kernel by name too, on the CPU)."""
     T, D, B, G, cd = 3, 2, 4, 2, torch.float32
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
                                                   "holes")
@@ -1397,8 +1397,8 @@ def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
         ([128, 128], 128, torch.bfloat16, "bilstm_gates_mma"),
         ([16, 32], 32, torch.bfloat16, "bilstm_gates_mma"),  # every shape wide_check admits
         ([96], 96, torch.bfloat16, "bilstm_gates_mma"),
-        ([256], 256, torch.float32, "bilstm_gates"),          # f32 keeps the CUDA-core kernel
-        ([128, 128], 128, torch.float32, "bilstm_gates"),
+        ([256], 256, torch.float32, "bilstm_gates_f32"),      # three tf32 passes
+        ([128, 128], 128, torch.float32, "bilstm_gates_f32"),
         ([200], 256, torch.bfloat16, None),   # a part not a multiple of 16
         ([256], 80, torch.bfloat16, None),    # H % 32 != 0
         ([256], 256, torch.float16, None),
@@ -1478,7 +1478,7 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
                 continue
             gates, lite = lstm_cuda.gates_kernel(Ep, H, dtype), lstm_cuda.lite_kernel(H, dtype)
             bf16 = dtype == torch.bfloat16
-            assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates")
+            assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates_f32")
             assert lite == ("bilstm_bwd_lite" if H not in (128, 256, 288)
                             else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
     for E_parts in ([256], [256, 256]):
@@ -1546,13 +1546,13 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     [
         (256, torch.bfloat16, "bilstm_fwd_wide_mma"),
         (128, torch.bfloat16, "bilstm_fwd_wide_mma"),
-        (256, torch.float32, "bilstm_fwd_wide"),   # f32 keeps the CUDA-core forward
-        (128, torch.float32, "bilstm_fwd_wide"),
+        (256, torch.float32, "bilstm_fwd_wide_f32"),  # three tf32 passes
+        (128, torch.float32, "bilstm_fwd_wide_f32"),
         (192, torch.bfloat16, "bilstm_fwd_wide"),  # 8 warps not even over 3 unit groups
         (96, torch.bfloat16, "bilstm_fwd_wide"),   # no whole 8-unit groups a block
         (32, torch.bfloat16, "bilstm_fwd_wide"),
         (80, torch.bfloat16, None),
-        (288, torch.float32, "bilstm_fwd_wide"),   # the 288-thread instance
+        (288, torch.float32, "bilstm_fwd_wide_f32"),  # 4 or 5 unit groups a block
         (288, torch.bfloat16, "bilstm_fwd_wide_mma"),  # its instance for uneven groups
         (320, torch.float32, None),
         (256, torch.float16, None),
@@ -1587,8 +1587,8 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                 continue
             if route == "wide":
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
-                    "bilstm_fwd_wide_mma" if bf16 and H in (128, 256, 288)
-                    else "bilstm_fwd_wide")
+                    "bilstm_fwd_wide" if H not in (128, 256, 288)
+                    else "bilstm_fwd_wide_mma" if bf16 else "bilstm_fwd_wide_f32")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
             if H % 32 == 0 or (bf16 and H % 8 == 0):
                 assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
@@ -1768,6 +1768,114 @@ def test_wide_forward_mma_and_wgrad_f32_wrappers_take_plain_versions_on_cpu():
         lstm_cuda.bilstm_wgrad_f32(dgc.clone().requires_grad_(), parts32, hs_f, hs_b, 2)
 
 
+# -------- the f32 tensor-core input gates and wide forward (three tf32 passes)
+@pytest.mark.parametrize("H", [96, 128, 160, 192, 224, 256, 288])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_gates_kernel_takes_f32_on_the_tensor_cores_at_every_wide_width(H, parts):
+    """Every f32 shape ``wide_check`` admits past the resident widths takes
+    the f32 tensor-core gates, one input part or two (the stacked layers);
+    bf16 keeps its own; ``bilstm_gates.cu`` is reached by name only."""
+    E_parts = [H] * parts
+    assert lstm_cuda.gates_kernel(E_parts, H, torch.float32) == "bilstm_gates_f32"
+    assert lstm_cuda.gates_kernel(E_parts, H, torch.bfloat16) == "bilstm_gates_mma"
+    assert lstm_cuda.gates_kernel([16] * parts, H, torch.float32) == "bilstm_gates_f32"
+
+
+@pytest.mark.parametrize("H,kernel", [
+    (96, "bilstm_fwd_wide"), (128, "bilstm_fwd_wide_f32"), (160, "bilstm_fwd_wide"),
+    (192, "bilstm_fwd_wide"), (224, "bilstm_fwd_wide"), (256, "bilstm_fwd_wide_f32"),
+    (288, "bilstm_fwd_wide_f32")])
+def test_wide_fwd_kernel_takes_f32_at_the_tensor_core_widths(H, kernel):
+    """The f32 wide forward runs on the tensor cores at the widths of the
+    bf16 one and of the f32 lite sweep (128, 256, 288); the CUDA-core
+    forward keeps 96, 160, 192 and 224. Its check refuses bf16 and the
+    other widths."""
+    assert lstm_cuda.wide_fwd_kernel(H, torch.float32) == kernel
+    assert (kernel == "bilstm_fwd_wide_f32") == (H in lstm_cuda.FWD_WIDE_F32_WIDTHS)
+    if kernel == "bilstm_fwd_wide_f32":
+        lstm_cuda.fwd_wide_f32_check(H, torch.float32)
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+            lstm_cuda.fwd_wide_f32_check(H, torch.bfloat16)
+    else:
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+            lstm_cuda.fwd_wide_f32_check(H, torch.float32)
+
+
+@pytest.mark.parametrize("H", [128, 256, 288])
+def test_fwd_wide_f32_smem_and_plan(H):
+    """The f32 tensor-core forward's shared memory by row tile
+    (csrc/bilstm_fwd_wide_f32.cu:smem_bytes): two f32 h tiles of rows of
+    H + 16 and the staged new h (8 units a group of the block with the most
+    unit groups + 16 a row); its weights are read from L2. Its row tiles
+    are 16 and 32 at 128 and 256 and 16 at 288; others are refused. The
+    plan picks, at the train shape and small ones, one of them under
+    SMEM_LIMIT, and whole row tiles of each weight group; at 288 it takes
+    16-row tiles, even where 32 would fit one wave."""
+    groups = -(-H // 64)
+    rows = lstm_cuda.FWD_WIDE_F32_ROWS if H % 64 == 0 else lstm_cuda.FWD_WIDE_F32_UNEVEN_ROWS
+    assert rows == ((16, 32) if H % 64 == 0 else (16,))
+    for R in rows:
+        assert lstm_cuda.wide_smem("fwd_f32", H, R) == (
+            2 * R * (H + 16) * 4 + R * (8 * groups + 16) * 4)
+    for R in (40,) + ((32,) if H % 64 else ()):
+        with pytest.raises(ValueError, match=f"no instance for a row tile of {R} at H={H}"):
+            lstm_cuda.wide_smem("fwd_f32", H, R)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+        lstm_cuda.wide_smem("fwd_f32", 96, 16)
+    if H == 288:
+        assert lstm_cuda.wide_plan("fwd_f32", 400, 5, 288, lambda r, sm: 30)[:2] == (16, 25)
+    for B, G, clusters in ((400, 5, 15), (400, 1, 30), (27, 3, 15), (8, 1, 33)):
+        R, tiles, smem = lstm_cuda.wide_plan("fwd_f32", B, G, H, lambda r, sm: clusters)
+        assert smem <= lstm_cuda.SMEM_LIMIT and R in rows
+        assert tiles == G * -(-(B // G) // R)
+        assert smem == lstm_cuda.wide_smem("fwd_f32", H, R)
+
+
+def test_f32_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
+    """On the CPU the f32 tensor-core gates and wide forward (both variants)
+    run their plain twins bit for bit and launch
+    nothing; the dispatch and the CUDA-core kernels by name do the same.
+    They refuse bf16 and, under grad mode, operands that require grad."""
+    cpu, cd = torch.device("cpu"), torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [16, 32], 288, 5, cd, cpu)
+    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_f32,
+                lstm_cuda.bilstm_fwd_wide_train_f32)
+    before = [f.launches for f in wrappers]
+    want_xg = input_gates(parts, w_ih, bias, cd)
+    for got in (lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd),
+                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd),
+                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")):
+        assert torch.equal(got, want_xg)
+    xg = want_xg
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    got = lstm_cuda.bilstm_fwd_wide_train_f32(xg, lengths, w_hh, cd)
+    assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    got = lstm_cuda.bilstm_fwd_wide_f32(xg, lengths, w_hh, cd)
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    for got in (lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="bilstm_gates_f32 kernel takes torch.float32"):
+        lstm_cuda.bilstm_gates_f32(tuple(p.to(bf16) for p in parts), w_ih.to(bf16), bias, bf16)
+    with pytest.raises(ValueError, match="bilstm_gates_mma kernel takes torch.bfloat16"):
+        lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    for fn in (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32):
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+            fn(xg, lengths, w_hh.to(bf16), bf16)
+        with pytest.raises(RuntimeError, match="no autograd graph"):
+            fn(xg.clone().requires_grad_(), lengths, w_hh, cd)
+        with pytest.raises(RuntimeError, match="no autograd graph"):
+            fn(xg, lengths, w_hh.clone().requires_grad_(), cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_gates_f32(parts, w_ih.clone().requires_grad_(), bias, cd)
+    with torch.no_grad():
+        lstm_cuda.bilstm_gates_f32(parts, w_ih.clone().requires_grad_(), bias, cd)
+        lstm_cuda.bilstm_fwd_wide_f32(xg.clone().requires_grad_(), lengths, w_hh, cd)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -1871,10 +1979,10 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
 def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Input gates, the cluster forward (both variants), the lite sweep
     and wgrad against their plain versions. Groups of 12, 15 and 8 rows
-    leave short row tiles inside each group. In bf16 the gates and (at
-    H = 128 and 256) the forward and the sweep are the tensor-core kernels,
-    in f32 (at H = 128 and 256) the sweep (three tf32 passes), counted on
-    their own wrappers, and the CUDA-core ones are held by name too; in f32
+    leave short row tiles inside each group. The gates are the tensor-core
+    kernels (in f32 three tf32 passes), and at H = 128 and 256 the forward
+    and the sweep are too, counted on their own wrappers; the CUDA-core
+    gates and forward are held by name too (the lite sweep in bf16); in f32
     wgrad is the 3xTF32 kernel at every width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
@@ -1892,7 +2000,8 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
                 lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
                 lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32,
-                lstm_cuda.bilstm_bwd_lite_f32)
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_f32,
+                lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
     close([xg], [input_gates(parts, w_ih, bias, dtype)])
@@ -1900,13 +2009,16 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     lite_mma = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma"
     lite_f32 = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_f32"
     fwd_mma = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma"
+    fwd_f32 = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_f32"
     assert gates_mma == (dtype == torch.bfloat16)
+    assert lstm_cuda.gates_kernel(E_parts, H, dtype) == (
+        "bilstm_gates_mma" if gates_mma else "bilstm_gates_f32")
     assert lite_mma == fwd_mma == (dtype == torch.bfloat16 and H in (128, 256))
-    assert lite_f32 == (dtype == torch.float32 and H in (128, 256))
+    assert lite_f32 == fwd_f32 == (dtype == torch.float32 and H in (128, 256))
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
     close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
-    if fwd_mma:
+    if fwd_mma or fwd_f32:
         close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
               ref)
         close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
@@ -1916,19 +2028,22 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
     close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
-    if gates_mma:
-        close([lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")],
-              [input_gates(parts, w_ih, bias, dtype)])
-    if lite_mma or lite_f32:
+    close([lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")],
+          [input_gates(parts, w_ih, bias, dtype)])
+    if lite_mma:
         close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [dgates])
+    if lite_f32:
+        with pytest.raises(ValueError, match="and f32 outside"):
+            lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     dgc = dgates.to(dtype)
     close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
           bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        1, 1, 1, 1, int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma), 0, int(bf16),
-        int(not bf16), int(lite_f32)]
+        1, 1, 1, int(not lite_f32), int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma),
+        0, int(bf16), int(not bf16), int(lite_f32), int(not gates_mma), int(fwd_f32),
+        int(fwd_f32)]
 
 
 @pytest.mark.cuda
@@ -1985,17 +2100,18 @@ def test_forward_and_backward_input_gates_agree_bitwise_on_card(cuda_device, mon
 @pytest.mark.cuda
 def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
     """A model at embedding 128 (H = 128) takes the wide route on the card,
-    its sweeps the f32 tensor-core lite sweep (never the CUDA-core one); its
-    gradients equal the CPU plain path's."""
+    its input gates, forward and sweeps the f32 tensor-core kernels (never
+    the CUDA-core ones); its gradients equal the CPU plain path's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
-    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide_train,
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
                 lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd_lite_f32)
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates,
+                lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, embedding_size=128)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 0, 2]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 0, 2, 0, 0]
     want = model_grads(torch.device("cpu"), embedding_size=128)
     for name, grad in got.items():
         ref = want[name]
@@ -2902,7 +3018,7 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
     ``recurrence_width`` (zero units in each gate block); its outputs and
     the gradients of ``xg`` and ``w`` equal the CPU plain op's at the true
     H (1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16). At 288 the cluster
-    kernels' 288-thread instance runs, past it the global-weight one."""
+    kernels' 288-thread instance runs, past it the tensor-core ones."""
     assert lstm_cuda.recurrence_width(H, dtype) == Hp
     T, D, B, G = 12, 2, 10, 2
     tol = 1e-4 if dtype == torch.float32 else 3e-2
@@ -2983,21 +3099,20 @@ def test_wgrad_mma_masked_gate_tile_matches_plain_on_card(cuda_device, E_parts, 
 @pytest.mark.parametrize("T", [24, 1])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
-    """The CUDA-core wide forward (both variants) and lite sweep at H = 288
-    (their 288-thread instances: the bf16 layers JAX's lite plan takes past
-    256, padded to 288) against their plain twins: 60 rows in 5 weight
-    groups, ragged lengths, two dy streams; the row tiles ``wide_plan``
-    picks. 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16. In bf16 the
-    dispatch names the tensor-core kernels there (the forward's and the lite
-    sweep's instances for uneven groups), in f32 the tensor-core lite sweep
-    (three tf32 passes), so the CUDA-core ones are asked for by name."""
+    """The CUDA-core wide forward (both variants) at H = 288 (its 288-thread
+    instance) in f32 against its plain twin: 60 rows in 5 weight groups,
+    ragged lengths; the row tiles ``wide_plan`` picks; 1e-4 x max(1,
+    max|ref|). The dispatch names the tensor-core kernels there in both
+    dtypes (three tf32 passes in f32), so it is asked for by name; in bf16
+    it takes no width past 256 any more, and the CUDA-core lite sweep none
+    in either dtype: asked for by name, they refuse before any launch."""
     H, G, B = 288, 5, 60
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
                                                                  cuda_device, seed=T)
     f32 = dtype == torch.float32
     assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
-        "bilstm_fwd_wide" if f32 else "bilstm_fwd_wide_mma")
+        "bilstm_fwd_wide_f32" if f32 else "bilstm_fwd_wide_mma")
     assert lstm_cuda.lite_kernel(H, dtype) == (
         "bilstm_bwd_lite_f32" if f32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
@@ -3005,17 +3120,21 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
                 lstm_cuda.bilstm_bwd_lite)
     before = [f.launches for f in wrappers]
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
-           want, tol)
-    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
-           want[:4], tol)
+    if f32:
+        _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype,
+                                               kernel="bilstm_fwd_wide"), want, tol)
+        _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
+               want[:4], tol)
+    else:
+        with pytest.raises(ValueError, match="takes bfloat16 up to H = 256"):
+            lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")],
-           [bidir_layer_sweep_lite(*args)], tol)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(f32), 0]
 
 
 @pytest.mark.cuda
@@ -3031,7 +3150,7 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
     T = 1; groups of 8, 6, 9, 10, 80 and 81 rows, which leave short row
     tiles; the sweep with dhs and dcn None, and with all three None. The
     dispatch names them (their wrappers count the launches), and the
-    global-weight instance by name agrees at the repo's bf16 tolerance."""
+    cluster kernels asked for by name refuse past 288 units."""
     cd, tol = torch.bfloat16, 2.0 ** -7
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                                   "holes" if mask == "off" else mask, seed=H + T)
@@ -3051,11 +3170,12 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
     for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
                  (xg, valid, w, hs, cs, None, None, None, G, cd)):
         _close([lstm_cuda.lstm_recurrence_bwd_wide_mma(*part)], [recurrence_sweep(*part)], tol)
-    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
-           ref, 3e-2)
-    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [dxg], 3e-2)
+    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
+    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
+        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 3, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 3, 0, 0]
 
 
 @pytest.mark.cuda
@@ -3144,7 +3264,7 @@ def test_lite_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, B, r
     and 5, groups of 12, 70, 9, 80 and 15 rows (short tiles), lengths of 0,
     1 and T, T = 1; 0, 1 and 2 dy streams a direction, with and without
     final-state cotangents; the dispatch names it and its wrapper counts
-    each launch; the 288-thread CUDA-core sweep by name agrees too."""
+    each launch; the CUDA-core sweep asked for by name refuses 288 units."""
     monkeypatch.setattr(lstm_cuda, "LITE_MMA_UNEVEN_ROWS", (rows,))
     H, cd = 288, torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd,
@@ -3159,9 +3279,10 @@ def test_lite_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, B, r
                 dhn if final else None, dcn if final else None, cd)
         want = bidir_layer_sweep_lite(*args)
         _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 3e-2)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 0]
 
 
 @pytest.mark.cuda
@@ -3236,7 +3357,7 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
     row tiles; up to 512 (32- or 16-row tiles) and past it (two unit groups
     a warp, 16-row tiles) to the stop at 1024; dhs, dhn and dcn None in
     turn. The dispatch names it (its wrapper counts the launches), and the
-    global-weight instance by name agrees."""
+    cluster sweep asked for by name refuses past 288 units."""
     cd, tol = torch.float32, 1e-4
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                                   "holes" if mask == "off" else mask, seed=H + T)
@@ -3253,9 +3374,10 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
                  (xg, valid, w, hs, cs, dhs, None, dcn, G, cd),
                  (xg, valid, w, hs, cs, None, None, None, G, cd)):
         _close([lstm_cuda.lstm_recurrence_bwd_wide_f32(*part)], [recurrence_sweep(*part)], tol)
-    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [dxg], tol)
+    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
+        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 0]
 
 
 @pytest.mark.cuda
@@ -3263,8 +3385,8 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
 def test_recurrence_wide_f32_autograd_on_card(cuda_device, monkeypatch, H):
     """``fused_lstm_recurrence`` in f32 past 288 on the card, through the
     f32 tensor-core forward and sweep (one f32 fragment copy of the weights
-    built once for both) and the CUDA-core wgrad, never the global-weight
-    instances: outputs and the gradients of xg and w equal the CPU plain
+    built once for both) and the CUDA-core wgrad, never the cluster
+    kernels: outputs and the gradients of xg and w equal the CPU plain
     path's within 1e-4 x max(1, max|ref|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     T, D, B, G, cd = 10, 2, 12, 2, torch.float32
@@ -3333,7 +3455,7 @@ def test_sweep_mma_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B, ny
     and without final-state cotangents, groups of 80, 12, 13, 9 and 9 rows
     (short tiles), lengths of 0, 1 and T, rows 8-15 short of T. The
     dispatch hands ``bilstm_bwd`` to it; ``bilstm_bwd.cu`` asked for by name
-    agrees too."""
+    refuses the shape the tensor-core sweep took over."""
     cd, H = torch.bfloat16, 80
     assert lstm_cuda.sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma"
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
@@ -3351,9 +3473,9 @@ def test_sweep_mma_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B, ny
     _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 3e-2)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2]
-    _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 3e-2)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
+    with pytest.raises(ValueError, match="not asked for by name where the bf16 tensor-core"):
+        lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")
+    assert lstm_cuda.bilstm_bwd.launches == before[0]
 
 
 @pytest.mark.cuda
@@ -3387,7 +3509,7 @@ def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, 
     1, groups of 12, 9 and 70 rows (short tiles), lengths of 0, 1 and T.
     (At 400 rows in 5 groups the 32-row tile is the plan's.)
     The dispatch names it, the eval and train variants give the same hs
-    bits, and the 288-thread CUDA-core forward by name agrees too."""
+    bits, and the CUDA-core forward asked for by name refuses bf16 at 288."""
     monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_UNEVEN_ROWS", (rows,))
     H, cd = 288, torch.bfloat16
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma"
@@ -3405,10 +3527,9 @@ def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, 
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
-           want, 3e-2)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1] + 1
+    with pytest.raises(ValueError, match="takes bfloat16 up to H = 256"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
+    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1]
 
 
 @pytest.mark.cuda
@@ -3583,7 +3704,7 @@ def test_recurrence_fwd_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     """The f32 tensor-core forward past 288 takes the plain twin for CPU
     tensors, counting no launch, and refuses operands that require grad;
     ``lstm_recurrence_fwd`` hands f32 past 288 to it only on the card and
-    reaches it and the global-weight instance by name."""
+    reaches it by name (the cluster kernel by name too, on the CPU)."""
     T, D, B, G, cd = 3, 2, 4, 2, torch.float32
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes")
     wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_fwd)
@@ -3611,7 +3732,7 @@ def test_lite_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T, ro
     shape) and groups of 30, 9, 20 and 25 rows that leave short tiles, G = 1
     too; 0, 1 and 2 dy streams, with and without final-state cotangents;
     lengths of 0, 1 and T; T = 1. The dispatch names it (its wrapper counts
-    the launches), and the CUDA-core sweep by name agrees."""
+    the launches), and the CUDA-core sweep asked for by name refuses."""
     monkeypatch.setattr(lstm_cuda, "LITE_F32_ROWS", (rows,))
     cd = torch.float32
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd,
@@ -3626,9 +3747,10 @@ def test_lite_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T, ro
                 dhn if final else None, dcn if final else None, cd)
         want = bidir_layer_sweep_lite(*args)
         _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 1e-4)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 0]
 
 
 @pytest.mark.cuda
@@ -3677,7 +3799,7 @@ def test_recurrence_fwd_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, 
     48-row tiles) and past it (two unit groups a warp, 16-row tiles) to the
     stop at 1024. The dispatch names it (its wrapper counts the launches),
     a copy of the fragments built by the caller gives the same bits, and
-    the global-weight instance by name agrees."""
+    the cluster forward asked for by name refuses past 288 units."""
     cd, tol = torch.float32, 1e-4
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                             "holes" if mask == "off" else mask, seed=H + T)
@@ -3692,10 +3814,10 @@ def test_recurrence_fwd_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, 
     wf = lstm_cuda.recurrence_f32_weights(w)
     again = lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
-           ref, tol)
+    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda
@@ -3734,7 +3856,7 @@ def test_default_backend_runs_the_op_past_288_on_card(cuda_device, dtype):
     """Past 288 units a layer the default backend ("auto") takes the
     recurrence op: the two-layer model at embedding 320 launches the op's
     tensor-core kernels past 288 (in f32 the three-tf32-pass forward and
-    sweep, never the global-weight instances) and no layer kernel; its
+    sweep, never the cluster kernels) and no layer kernel; its
     gradients equal the CPU plain path's (1e-4 x max(1, max|grad|) in f32,
     2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3756,4 +3878,136 @@ def test_default_backend_runs_the_op_past_288_on_card(cuda_device, dtype):
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
+            1.0, float(ref.abs().max())), name
+
+
+# --------- the f32 tensor-core input gates and wide forward, on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 256, 288])
+@pytest.mark.parametrize("E_parts,G,B,T", [([1], 5, 400, 6), ([1], 1, 27, 5), ([16, 2], 3, 27, 1),
+                                           ([2, 1], 1, 130, 3)])
+def test_gates_f32_matches_plain_on_card(cuda_device, H, E_parts, G, B, T):
+    """The f32 tensor-core input gates (three tf32 passes) against their
+    plain twin at 1e-4 x max(1, max|ref|): one and two input parts (widths
+    of H, 2H and 16), 400 rows in 5 groups (the train shape), 27 and 130
+    rows (a ragged last row tile), T = 1; the same bits computed twice
+    (the backward's recompute). The dispatch names it and its wrapper counts
+    the launches; ``bilstm_gates.cu`` by name agrees too."""
+    cd = torch.float32
+    E_parts = [e * H if e < 16 else e for e in E_parts]
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=H + B)
+    assert lstm_cuda.gates_kernel(E_parts, H, cd) == "bilstm_gates_f32"
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_gates)
+    before = [f.launches for f in wrappers]
+    want = input_gates(parts, w_ih, bias, cd)
+    got = lstm_cuda.bilstm_gates(parts, w_ih, bias, cd)
+    _close([got], [want], 1e-4)
+    assert torch.equal(lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd), got)
+    _close([lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 256, 288])
+@pytest.mark.parametrize("G,B,T", [(5, 400, 6), (1, 27, 5), (3, 27, 1), (1, 70, 9), (5, 60, 4)])
+def test_fwd_wide_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T):
+    """The f32 tensor-core wide forward (three tf32 passes), both variants,
+    at every row tile it is built for (pinned with monkeypatch on the
+    plan's candidates)
+    against the plain recurrence at 1e-4 x max(1, max|ref|): 400 rows in 5
+    groups, groups of 27, 9, 70 and 12 rows (short tiles), lengths of 0, 1
+    and T, T = 1. The eval and train variants give the same hs bits; the
+    dispatch names it and its wrappers count the launches; the CUDA-core
+    forward by name agrees too."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=B + T + H)
+    assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_f32"
+    xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
+                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    _close(got, want, 1e-4)
+    _close(ev, want[:4], 1e-4)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    rows = lstm_cuda.FWD_WIDE_F32_ROWS if H % 64 == 0 else lstm_cuda.FWD_WIDE_F32_UNEVEN_ROWS
+    for R in rows:
+        monkeypatch.setattr(lstm_cuda, "FWD_WIDE_F32_ROWS", (R,))
+        monkeypatch.setattr(lstm_cuda, "FWD_WIDE_F32_UNEVEN_ROWS", (R,))
+        tr = lstm_cuda.bilstm_fwd_wide_train_f32(xg, lengths, w_hh, cd)
+        e = lstm_cuda.bilstm_fwd_wide_f32(xg, lengths, w_hh, cd)
+        _close(tr, want, 1e-4)
+        _close(e, want[:4], 1e-4)
+        assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
+    n = len(rows)
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
+           want, 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1 + n, 1 + n, 0, 1]
+
+
+@pytest.mark.cuda
+def test_f32_wide_kernels_reject_bad_operands_on_card(cuda_device):
+    """The f32 tensor-core gates and wide forward refuse what their kernels
+    do not take, before any launch: bf16, a width the forward is not built
+    for, a weight of the wrong shape or dtype, lengths on the CPU, a batch
+    that is not a multiple of the weight groups, an unknown kernel name and operands that require grad."""
+    cd, H = torch.float32, 128
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [H], H, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_f32,
+                lstm_cuda.bilstm_fwd_wide_train_f32)
+    before = [f.launches for f in wrappers]
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="bilstm_gates_f32 kernel takes torch.float32"):
+        lstm_cuda.bilstm_gates_f32(tuple(p.to(bf16) for p in parts), w_ih.to(bf16), bias, bf16)
+    with pytest.raises(ValueError, match="w_ih must be a contiguous"):
+        lstm_cuda.bilstm_gates_f32(parts, w_ih[..., :64].contiguous(), bias, cd)
+    with pytest.raises(ValueError, match="bilstm wide kernels take 1 or 2 input parts"):
+        lstm_cuda.bilstm_gates_f32((parts[0][..., :100].contiguous(),),
+                                   w_ih[..., :100].contiguous(), bias, cd)
+    fwd = lstm_cuda.bilstm_fwd_wide_train_f32
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+        fwd(xg, lengths, w_hh.to(bf16), bf16)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
+        fwd(xg[..., :4 * 96].contiguous(), lengths, w_hh[..., :4 * 96, :96].contiguous(), cd)
+    with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+        fwd(xg, lengths, w_hh[..., :64].contiguous(), cd)
+    with pytest.raises(ValueError, match="lengths must be a contiguous"):
+        fwd(xg, lengths.cpu(), w_hh, cd)
+    with pytest.raises(ValueError, match="not a multiple of 3 weight groups"):
+        fwd(xg, lengths, torch.cat([w_hh, w_hh[:, :1]], 1).contiguous(), cd)
+    with pytest.raises(ValueError, match="no wide forward kernel named"):
+        lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide_tf32")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        fwd(xg.clone().requires_grad_(), lengths, w_hh, cd)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.cuda
+def test_two_layer_model_at_embedding_272_f32_on_card(cuda_device):
+    """The f32 two-layer model at embedding 272 (both layers run at
+    H = 288): one gradient step launches the f32 tensor-core gates, wide
+    forward and lite sweep and never the CUDA-core gates, forward or sweep;
+    its gradients equal the CPU plain path's within 1e-4 x max(1,
+    max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=torch.float32, embedding_size=272)
+    torch.cuda.synchronize()
+    ran = [f.launches - b for f, b in zip(wrappers, before)]
+    assert min(ran[:3]) > 0 and ran[3:] == [0, 0, 0], ran
+    want = model_grads(torch.device("cpu"), dtype=torch.float32, embedding_size=272)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
             1.0, float(ref.abs().max())), name

@@ -95,7 +95,7 @@ def test_fused_recurrence_matches_jax(dtype, G, mask):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_recurrence_matches_jax_past_256(dtype, H):
     """The op at H = 288 (the kernels' 288-thread instance on the card) and
-    320 (padded to 320's global-weight instance there: on the CPU the plain
+    320 (the tensor-core kernels past 288 there: on the CPU the plain
     twins at the same padded width) against JAX's op, which takes them in
     interpret mode: values and gradients at the tolerances above."""
     T, D, B, G = 3, 2, 2, 1

@@ -253,10 +253,11 @@ def test_padded_width_and_route(E_parts, H, dtype, Hp, route):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recurrence_op_takes_every_width_to_256(dtype):
-    """The op's widths (past 256 since the 288-thread and global-weight
-    instances): on the card every H up to 1024 runs at the next multiple
-    of 32 on hand kernels, and past 1024 the card's check raises, naming
-    the limit; the CPU's plain twins take any H, unpadded past 1024."""
+    """The op's widths (past 256 on the cluster kernels' 288-thread
+    instance and the tensor-core kernels past 288): on the card every H up
+    to 1024 runs at the next multiple of 32 on hand kernels, and past 1024
+    the card's check raises, naming the limit; the CPU's plain twins take
+    any H, unpadded past 1024."""
     hand = set(lstm_cuda._SIGNATURES)
     for H in list(range(1, 300)) + list(range(300, 1025, 29)) + [1024]:
         Hp = lstm_cuda.recurrence_width(H, dtype)
