@@ -40,14 +40,17 @@ exits non-zero with no result):
    held too, and the twins with their products in one tf32 pass are
    recorded beside them (a control for the f32 tolerance); ragged cases (27
    rows in 3 groups, T = 1, rows of length 0; the one-stage f32 sweep at
-   E = H = 80, T = 1 and 5); at their own main path's shapes (layer 0 of
-   the two-layer model at embedding 80: E = H = 80, 5 groups, two dy
-   streams a direction) ``bilstm_fwd.cu`` (both variants) in f32 and
-   bf16, ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last
-   gate tile masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name),
-   the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns
-   with ``bilstm_bwd.cu`` by name) and the tensor-core sweep
-   ``bilstm_bwd_mma`` (its <80, 80> instance) in bf16; then
+   E = H = 80, T = 1 and 5; the f32 forward at E = H = 80 and the one-block
+   f32 lite sweep at H = 96, T = 1 and 5); at their own main path's shapes
+   (layer 0 of the two-layer model at embedding 80: E = H = 80, 5 groups,
+   two dy streams a direction) the 3xTF32 forward ``bilstm_fwd_f32`` (both
+   variants, its 320-thread instance) in f32 (in turns with
+   ``bilstm_fwd.cu`` by name) and ``bilstm_fwd.cu`` in bf16,
+   ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last gate tile
+   masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name), the
+   one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns with
+   ``bilstm_bwd.cu`` by name) and the tensor-core sweep ``bilstm_bwd_mma``
+   (its <80, 80> instance) in bf16; then
    each kernel, the
    new and the old in turns (new, old, old, new, in the same run), and a
    PyTorch yardstick
@@ -65,13 +68,15 @@ exits non-zero with no result):
    run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and
    ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2
    steps and an eval step of the two-layer model at embedding 80 in f32 and
-   in bf16: layer 0's forward (both variants) ``bilstm_fwd.cu``, its wgrad
+   in bf16: layer 0's forward (both variants) ``bilstm_fwd_f32`` in f32
+   and ``bilstm_fwd.cu`` in bf16 (never the other), its wgrad
    ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` in bf16 (and
    ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
-   stacked layer padded to H = 96 on the
-   wide route (the tensor-core gates, in f32 ``bilstm_gates_f32``, and the
-   CUDA-core forward and lite sweep); then one step's gradients (and at embedding 80 an eval step)
+   stacked layer padded to H = 96 on the wide route (the tensor-core
+   gates, the CUDA-core forward, and the lite sweep: in f32 the one-block
+   ``bilstm_bwd_lite_f32_resident``, never ``bilstm_bwd_lite.cu``, in bf16
+   ``bilstm_bwd_lite.cu``); then one step's gradients (and at embedding 80 an eval step)
    on the card held against the port's CPU plain path at a small size, in
    f32 and bf16 (also at embedding 80, two layers);
 5b. widths — the layers the width repairs open (``ops/lstm_cuda.py:
@@ -92,16 +97,17 @@ exits non-zero with no result):
    (128), against its twin, at each row tile, beside its bound and cuDNN;
    the f32 tensor-core gates and wide forward (both variants) on layer 0
    and the stacked layer at embedding 272 (288), layer 0 of the scaled
-   configuration and at embedding 100 (128), against their twins and in
-   turns with ``bilstm_gates.cu`` and ``bilstm_fwd_wide.cu`` by name,
-   beside their bounds, ``addmm`` and cuDNN, the forward at each row tile
-   in turns with the dispatch; ``bilstm_bwd_lite.cu``
-   in f32 on its main path (the stacked layer at embedding 80, H = 96)
-   beside cuDNN; ``bilstm_bwd.cu`` in bf16 on its main path (layer 0 at
-   embedding 72, E = H = 72), timed beside its bound and cuDNN;
-   the CUDA-core wide forward (both variants) and lite sweep in bf16 at
-   the stacked layer at embedding 80 (run at H = 96, their main path),
-   against their twins, timed beside their bounds and cuDNN; at 288 the
+   configuration and at embedding 100 (128), against their twins, beside
+   their bounds, ``addmm`` and cuDNN, the forward at each row tile in
+   turns with the dispatch; the f32 lite sweep on its main path (the
+   stacked layer at embedding 80, H = 96), the one-block
+   ``bilstm_bwd_lite_f32_resident``, in turns with ``bilstm_bwd_lite.cu``
+   by name, beside its bounds and cuDNN; ``bilstm_bwd.cu`` in bf16 on its
+   main path (layer 0 at embedding 72, E = H = 72), timed beside its bound
+   and cuDNN; the wide forward (both variants, the CUDA-core
+   ``bilstm_fwd_wide.cu``) and lite sweep at the stacked layer at
+   embedding 80 (run at H = 96) in bf16 and in f32, against their twins,
+   timed beside their bounds and cuDNN; at 288 the
    tensor-core forward (both variants) ``bilstm_fwd_wide(_train)_mma``
    and lite sweep ``bilstm_bwd_lite_mma`` (their instances for uneven
    unit groups), which the dispatch names there, against their twins and
@@ -123,7 +129,7 @@ exits non-zero with no result):
    ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 (three
    tf32 passes) ``bilstm_gates_f32``, ``bilstm_fwd_wide(_train)_f32``,
    ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``, and the CUDA-core
-   kernels, asked for by name, are held too (the lite sweep in bf16); the
+   forward and lite sweep, asked for by name, are held too in bf16; the
    input gates computed twice must agree bit for bit (the backward
    recomputes them), and so must the tensor-core forwards' hs in their two
    variants; ragged cases of the tensor-core kernels (27 rows in 3 groups
@@ -131,10 +137,10 @@ exits non-zero with no result):
    f32 gates and forward at 128, 256 and 288 at every row tile; wgrad
    in both dtypes); then each timed with CUDA events at full lengths beside
    its plain version and a PyTorch yardstick in the same dtype (cuBLAS
-   ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; the
-   gates, the forward (both variants) and wgrad new, old, old, new in both
-   dtypes, the bf16 sweep too, and in bf16 the forward and the sweep at
-   each of their row tiles;
+   ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; wgrad
+   new, old, old, new in both dtypes, the bf16 forward (both variants) and
+   sweep too, and in bf16 the forward and the sweep at each of their row
+   tiles;
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
@@ -198,16 +204,16 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-four kernels, each with launches > 0 on a
-    main path; the tensor-core forward and lite sweep at 288, the bf16
-    sweep and wgrad at H = 80 and the CUDA-core wide kernels at 96 as
-    ``h288_*``, ``h80_*`` and ``h96_*`` fields of their kernels' entries;
-    the bf16 op past 288, the f32 forward and sweep past 288, the f32
-    tensor-core lite sweep and the f32 tensor-core gates and wide forward
-    as entries of their own, the last with ``hN_*`` fields at 288, 256 and
-    128; ``bilstm_gates.cu``, which no dispatch names any more, as
-    ``cuda_core_*`` fields of the tensor-core gates' entries), the card's
-    name and power limit, and the result.
+11. the ``kernels`` line (thirty-five kernels, each with launches > 0 on a
+    main path; the tensor-core forward and lite sweep at 288 and the f32
+    forward, bf16 sweep and wgrad at H = 80 as ``h288_*`` and ``h80_*``
+    fields of their kernels' entries; the CUDA-core wide forward's main
+    path f32 at 96 and the CUDA-core lite sweep's bf16 at 96, each with the
+    other dtype beside it; the bf16 op past 288, the f32 forward and sweep
+    past 288, the f32 tensor-core lite sweep, the one-block f32 lite sweep
+    at 96 and the f32 tensor-core gates and wide forward as entries of
+    their own, the last with ``hN_*`` fields at 288, 256 and 128), the
+    card's name and power limit, and the result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -285,6 +291,7 @@ def phase_build() -> dict:
         fwd_mma_plan,
         WIDE_ROWS,
         launch_plan,
+        lite_f32_resident_plan,
         recurrence_f32_smem,
         recurrence_mma_smem,
         recurrence_wide_f32_smem,
@@ -320,6 +327,8 @@ def phase_build() -> dict:
             smem[f"fwd_f32 float32 E={sum(E_parts)} rows={rows}"] = fwd_f32_plan(
                 E_parts, H_SERVE, torch.float32, rows)[1]
     smem["bwd_f32_onestage float32 E=H=80"] = bwd_f32_onestage_plan([80], 80, torch.float32)[1]
+    smem["fwd_f32 float32 E=H=80 rows=8"] = fwd_f32_plan([80], 80, torch.float32, 8)[1]
+    smem["bwd_lite_f32_resident float32 H=96"] = lite_f32_resident_plan(96, torch.float32)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
@@ -333,8 +342,8 @@ def phase_build() -> dict:
     for H in FWD_WIDE_MMA_WIDTHS:
         for rows in FWD_WIDE_MMA_ROWS:
             smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
-    # the 288-thread instances of the CUDA-core cluster kernels (the f32
-    # wide forward by name, the recurrence op's forward and sweep)
+    # the 288-thread instances of the CUDA-core cluster kernels (the
+    # recurrence op's forward and sweep)
     for kind in ("fwd", "bwd"):
         for R in WIDE_ROWS:
             if wide_smem(kind, 288, R) <= SMEM_LIMIT:
@@ -791,7 +800,7 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
            "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
            "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32", "bilstm_gates_f32",
-           "bilstm_fwd_wide_f32")
+           "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32_resident")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -956,33 +965,97 @@ def ragged_fwd_wgrad_check(dev) -> list:
     return out
 
 
+def ragged_80_96_check(dev) -> list:
+    """The f32 forward at E = H = 80 (both variants: ``bilstm_fwd_f32``'s
+    320-thread instance) and the one-block f32 lite sweep at H = 96
+    (``bilstm_bwd_lite_f32_resident``) against their twins where no size is
+    round: 27 rows in 3 weight groups of 9 (a short tile in each group),
+    T = 1 and 5, rows of length 0, 1 and T, the sweep with two dy streams
+    and with none; 1e-4 x max(1, max|ref|)."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import (
+        bidir_layer,
+        bidir_layer_sweep_lite,
+        bidir_recurrence,
+        input_gates,
+    )
+
+    cd, B, G, out = torch.float32, 27, 3, []
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    for T in (1, 5):
+        g = torch.Generator(device=dev).manual_seed(SEED + 180 + T)
+
+        def u(*shape, scale=1.0):
+            return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
+
+        lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+        lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+        for kernel, H, E_parts in (("bilstm_fwd_f32", 80, [80]),
+                                   ("bilstm_bwd_lite_f32_resident", 96, [48, 48])):
+            parts = tuple(u(T, B, e) for e in E_parts)
+            w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5)
+            w_hh = u(2, G, 4 * H, H, scale=H ** -0.5)
+            bias = u(2, 4 * H)
+            if kernel == "bilstm_fwd_f32":
+                args = (parts, lengths, w_ih, w_hh, bias, cd)
+                want = bidir_layer(*args, with_states=True)
+                res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    names, L.bilstm_layer_fwd_train_f32(*args), want)}
+                res.update({f"eval_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    names, L.bilstm_layer_fwd_f32(*args), want)})
+            else:
+                xg = input_gates(parts, w_ih, bias, cd)
+                hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd,
+                                                                with_states=True)
+                res = {}
+                for ny in (2, 0):
+                    dyf = tuple(u(T, B, H) for _ in range(ny))
+                    dyb = tuple(u(T, B, H) for _ in range(ny))
+                    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, u(2, B, H),
+                            u(2, B, H), cd)
+                    res[f"ny{ny}_dgates"] = rel_err(L.bilstm_bwd_lite_f32_resident(*args),
+                                                    bidir_layer_sweep_lite(*args), TOL[cd])
+            torch.cuda.synchronize()
+            check = {"kernel": kernel, "B": B, "G": G, "T": T, "H": H, "E_parts": E_parts,
+                     "dtype": "float32", "max_abs_err": {n: e for n, (e, _) in res.items()},
+                     "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+            out.append(check)
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "train_kernel", "failed": check})
+                raise AssertionError(f"a ragged f32 kernel at 80 / 96 disagrees: {check}")
+    return out
+
+
 def embedding_80_kernels(dev) -> dict:
     """Layer 0 of the two-layer model at embedding 80 (E = H = 80, 5 weight
     groups, two dy streams a direction from the stacked layer above, 400
     rows, T = 1500), the main path of these kernels, in f32 and bf16: in
-    f32 the forward (both variants) ``bilstm_fwd.cu``, the sweep
-    ``bilstm_bwd_f32_onestage.cu`` (three tf32 passes) and wgrad
-    ``bilstm_wgrad.cu``; in bf16 ``bilstm_fwd.cu``, the tensor-core sweep
-    ``bilstm_bwd_mma.cu`` (its <80, 80> instance) and
-    ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H = 320). Each is
-    held against its plain twin with the main path's lengths (groups at 0,
-    1 and T; in f32 ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``),
-    then timed at full lengths beside the twin (timed once, in the check),
-    its bound (the one-stage sweep at 495/3 TFLOP/s, the others at their
+    f32 the forward (both variants) ``bilstm_fwd_f32.cu`` (its 320-thread
+    instance, three tf32 passes), the sweep ``bilstm_bwd_f32_onestage.cu``
+    (three tf32 passes) and wgrad ``bilstm_wgrad.cu``; in bf16
+    ``bilstm_fwd.cu``, the tensor-core sweep ``bilstm_bwd_mma.cu`` (its
+    <80, 80> instance) and ``bilstm_wgrad_mma.cu`` (its last gate tile
+    masked: 4H = 320). Each is held against its plain twin with the main
+    path's lengths (groups at 0, 1 and T; in f32 ``bilstm_fwd.cu`` and
+    ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``), then timed
+    at full lengths beside the twin (timed once, in the check), its bound
+    (the f32 tensor-core kernels at 495/3 TFLOP/s, the others at their
     dtype's rate), cuDNN's one-layer training forward, inference forward
     and backward for the input in the same dtype, and cuBLAS's products
-    for wgrad, TF32 off; the f32 sweep in turns with ``bilstm_bwd.cu`` by
-    name and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old,
-    old, new). One dict per dtype and kernel: "fwd", "fwd_eval",
-    "bwd", "wgrad"."""
+    for wgrad, TF32 off; the f32 forward (both variants) in turns with
+    ``bilstm_fwd.cu`` by name, the f32 sweep with ``bilstm_bwd.cu`` by name
+    and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old, old,
+    new). One dict per dtype and kernel: "fwd", "fwd_eval", "bwd",
+    "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     E_parts, H, G, ny = [80], 80, G_TRAIN, 2
-    picked = {torch.float32: ("bilstm_fwd", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
+    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
+    by_name = {("fwd", torch.float32): "bilstm_fwd", ("fwd_eval", torch.float32): "bilstm_fwd",
+               ("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -995,11 +1068,12 @@ def embedding_80_kernels(dev) -> dict:
         shape = {"B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G, "E_parts": E_parts, "ny": ny,
                  "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
         out = {k: {"kernel": name, **shape} for k, name in (
-            ("fwd", "bilstm_fwd (train)"), ("fwd_eval", "bilstm_fwd (eval)"),
+            ("fwd", f"{picked[cd][0]} (train)"), ("fwd_eval", f"{picked[cd][0]} (eval)"),
             ("bwd", picked[cd][1]), ("wgrad", picked[cd][2]))}
         size = torch.empty((), dtype=cd).element_size()
         work = train_layer_work(sum(E_parts), H, size, ny)
-        peaks = {"bwd": kernel_peak(cd, picked[cd][1])}
+        peaks = {"fwd": kernel_peak(cd, picked[cd][0]), "fwd_eval": kernel_peak(cd, picked[cd][0]),
+                 "bwd": kernel_peak(cd, picked[cd][1])}
         for full in (False, True):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
                 E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=ny)
@@ -1013,7 +1087,9 @@ def embedding_80_kernels(dev) -> dict:
             dgc = calls["bwd"]()[2]
             calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             # the CUDA-core kernel asked for by name on the same operands
-            old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
+            old = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
+                   "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd"),
+                   "bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
                    "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
                                                    kernel="bilstm_wgrad")}
             if full:
@@ -1048,6 +1124,16 @@ def embedding_80_kernels(dev) -> dict:
                 if f32:
                     res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
                                        for n, a, b in zip(gnames, flat(old["bwd"]()), flat(ref))})
+                    for k in ("fwd", "fwd_eval"):
+                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
+                                       for n, a, b in zip(names, old[k](), want)})
+                        out[k]["scaled_err"] = max(scaled_err(a, b)
+                                                   for a, b in zip(calls[k](), want))
+                    ev, tr = calls["fwd_eval"](), calls["fwd"]()
+                    res["fwd_eval"]["eval_vs_train_hs"] = (
+                        max(float((a - b).abs().max()) for a, b in zip(ev[:2], tr[:2])),
+                        all(torch.equal(a, b) for a, b in zip(ev[:2], tr[:2])))
+                    del ev, tr
                 out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                     flat(calls["bwd"]()), flat(ref)))
                 if not f32:
@@ -1179,7 +1265,7 @@ def phase_train_kernel(dev) -> dict:
             if not all(ok for _, ok in res.values()):
                 emit({"phase": "train_kernel", "failed": check})
                 raise AssertionError(f"a train kernel disagrees with its plain version: {check}")
-    ragged = ragged_sweep_check(dev) + ragged_fwd_wgrad_check(dev)
+    ragged = ragged_sweep_check(dev) + ragged_fwd_wgrad_check(dev) + ragged_80_96_check(dev)
 
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1271,7 +1357,7 @@ def train_counters():
             "bilstm_layer_fwd_mma": L.bilstm_layer_fwd_mma,
             "bilstm_layer_fwd_f32": L.bilstm_layer_fwd_f32,
             "bilstm_layer_fwd_train_f32": L.bilstm_layer_fwd_train_f32,
-            "bilstm_gates": L.bilstm_gates, "bilstm_gates_mma": L.bilstm_gates_mma,
+            "bilstm_gates_mma": L.bilstm_gates_mma,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
             "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
             "bilstm_bwd_lite_mma": L.bilstm_bwd_lite_mma,
@@ -1289,6 +1375,7 @@ def train_counters():
             "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32,
             "lstm_recurrence_fwd_wide_f32": L.lstm_recurrence_fwd_wide_f32,
             "bilstm_bwd_lite_f32": L.bilstm_bwd_lite_f32,
+            "bilstm_bwd_lite_f32_resident": L.bilstm_bwd_lite_f32_resident,
             "bilstm_gates_f32": L.bilstm_gates_f32,
             "bilstm_fwd_wide_train_f32": L.bilstm_fwd_wide_train_f32,
             "bilstm_fwd_wide_f32": L.bilstm_fwd_wide_f32}
@@ -1349,38 +1436,39 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                      "bilstm_bwd_f32_onestage"))
     # the default two-layer model at embedding 80, an eval step after its
     # train steps: layer 0 (E = H = 80) is resident, its forward (both
-    # variants) bilstm_fwd.cu, its wgrad bilstm_wgrad.cu in f32 and
-    # bilstm_wgrad_mma.cu (the masked gate tile) in bf16, its sweep the
-    # one-stage 3xTF32 kernel in f32 and the tensor-core bilstm_bwd_mma.cu
-    # in bf16, never bilstm_bwd.cu; the stacked layer (E = 2 x 80) runs
-    # padded to H = 96 on the wide route: the tensor-core input gates (in
-    # f32 bilstm_gates_f32), the CUDA-core forward and lite sweep
-    e80 = {}
-    for dtype, expect, never in (
-        (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_wgrad_f32",
-                         "bilstm_wgrad"),
-         ("bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma", "bilstm_gates",
-          "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32")),
-        (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_gates_mma", "bilstm_wgrad_mma"),
-         ("bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates", "bilstm_gates_f32",
-          "bilstm_wgrad_f32", "bilstm_wgrad")),
-    ):
-        e80[str(dtype).replace("torch.", "")] = f32_steps(
-            dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd",
-                           "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite")
-            + expect, ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
-                       "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma") + never,
-            eval_step=True, dtype=dtype, embedding_size=80)
+    # variants) the 3xTF32 bilstm_fwd_f32.cu in f32 and bilstm_fwd.cu in
+    # bf16, its wgrad bilstm_wgrad.cu in f32 and bilstm_wgrad_mma.cu (the
+    # masked gate tile) in bf16, its sweep the one-stage 3xTF32 kernel in
+    # f32 and the tensor-core bilstm_bwd_mma.cu in bf16, never
+    # bilstm_bwd.cu; the stacked layer (E = 2 x 80) runs padded to H = 96 on
+    # the wide route: the tensor-core input gates (in f32 bilstm_gates_f32),
+    # the CUDA-core forward, and the lite sweep, in f32 the one-block 3xTF32
+    # bilstm_bwd_lite_f32_resident.cu (never bilstm_bwd_lite.cu) and in bf16
+    # bilstm_bwd_lite.cu
+    e80_expect = {
+        torch.float32: ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
+                        "bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_fwd_wide_train",
+                        "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32",
+                        "bilstm_wgrad"),
+        torch.bfloat16: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
+                         "bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                         "bilstm_bwd_lite", "bilstm_wgrad_mma")}
+    e80_never = {
+        torch.float32: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite",
+                        "bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
+                        "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
+                        "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32"),
+        torch.bfloat16: ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
+                         "bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates_f32",
+                         "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_mma",
+                         "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32_resident")}
+    e80 = {str(dtype).replace("torch.", ""): f32_steps(
+        dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
+        embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
     grad_check = train_grad_check(dev)
     grad_check_80 = {str(dtype).replace("torch.", ""): train_grad_check(
-        dev, dtype=dtype, eval_step=True, expect=expect, never=("bilstm_bwd",),
-        embedding_size=80)
-        for dtype, expect in (
-            (torch.float32, ("bilstm_bwd_f32_onestage", "bilstm_layer_fwd", "bilstm_bwd_lite",
-                             "bilstm_fwd_wide", "bilstm_gates_f32", "bilstm_wgrad_f32",
-                             "bilstm_wgrad")),
-            (torch.bfloat16, ("bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_bwd_lite",
-                              "bilstm_fwd_wide", "bilstm_wgrad_mma")))}
+        dev, dtype=dtype, eval_step=True, expect=e80_expect[dtype], never=e80_never[dtype],
+        embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
     median = float(np.median(step_ms))
     out = {"phase": "train", "pairs": PAIRS_TRAIN, "T": T_TRAIN, "dtype": "bfloat16",
@@ -1441,7 +1529,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                           "bilstm_bwd_mma_kernel", "bilstm_bwd_lite_mma_kernel",
                           "bilstm_bwd_lite_mma_uneven_kernel",
                           "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
-                          "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel"),
+                          "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel",
+                          "bilstm_bwd_lite_f32_resident_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1538,14 +1627,13 @@ PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 1
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
 # the wide route's kernels at 128, 256 and 288, by dtype (the tensor-core
 # ones; in f32 three tf32 passes a product); at 96 both dtypes keep the
-# CUDA-core forward and sweep; the CUDA-core gates, forward and sweep no
-# wide layer at these widths may launch
+# CUDA-core forward, and bf16 the CUDA-core sweep; the CUDA-core forward and
+# sweep no wide layer at these widths may launch
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
             "bilstm_bwd_lite_f32", "bilstm_wgrad_f32")
-WIDE_CUDA_CORE = ("bilstm_gates", "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
-                  "bilstm_wgrad")
+WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite", "bilstm_wgrad")
 WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
@@ -1659,41 +1747,43 @@ def padded_layer_timings(dev) -> list:
 
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
                            seed=SEED + 50, fwd_want="bilstm_fwd_wide_mma",
-                           lite_want="bilstm_bwd_lite_mma") -> dict:
-    """The bf16 wide forward (both variants) and lite sweep the dispatch
-    names on a main path: by default layer 0 of the bf16 two-layer model at
-    embedding 272 (E = 272, run at H = 288, 5 weight groups, two dy streams
-    a direction: the tensor-core ``bilstm_fwd_wide_mma`` and
+                           lite_want="bilstm_bwd_lite_mma", cd=torch.bfloat16) -> dict:
+    """The wide forward (both variants) and lite sweep the dispatch names on
+    a main path, in ``cd``: by default layer 0 of the bf16 two-layer model
+    at embedding 272 (E = 272, run at H = 288, 5 weight groups, two dy
+    streams a direction: the tensor-core ``bilstm_fwd_wide_mma`` and
     ``bilstm_bwd_lite_mma``, their instances for uneven unit groups), and
     (``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96) the stacked
-    layer of the bf16 two-layer model at embedding 80 (the CUDA-core
-    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``); 400 rows, T = 1500,
-    the input gates from ``bilstm_gates_mma``. The forward and the sweep the
-    dispatch names must be ``fwd_want`` and ``lite_want``. Each held against
-    its plain twin with the main path's lengths (the tolerance ``TOL``; the
-    tensor-core forward's two variants must give the same hs bits), then
-    timed at full lengths beside the twin (timed once, in the check), its
-    bound at the bf16 rate at the padded H (the kernel's own work) and at
-    the true H, and cuDNN's one-layer bf16 training forward, inference
-    forward and backward for the input at the true widths, TF32 off; the
-    tensor-core forward also at each of its row tiles. One dict per kernel:
-    "fwd", "fwd_eval", "lite" (the CUDA-core ones) or "fwd_mma",
-    "fwd_eval_mma", "lite_mma" (the tensor-core ones, with their row tile,
-    tiles and the clusters the card holds at once)."""
+    layer of the two-layer model at embedding 80 (the CUDA-core
+    ``bilstm_fwd_wide.cu`` in both dtypes, and ``bilstm_bwd_lite.cu`` in
+    bf16, the one-block ``bilstm_bwd_lite_f32_resident.cu`` in f32); 400
+    rows, T = 1500, the input gates from the tensor-core gates kernel. The
+    forward and the sweep the dispatch names must be ``fwd_want`` and
+    ``lite_want``. Each held against its plain twin with the main path's
+    lengths (the tolerance ``TOL``; the tensor-core forward's two variants
+    must give the same hs bits), then timed at full lengths beside the twin
+    (timed once, in the check), its bound at its rate (``kernel_peak``) at
+    the padded H (the kernel's own work) and at the true H, and cuDNN's
+    one-layer training forward, inference forward and backward for the
+    input at the true widths in ``cd``, TF32 off; the tensor-core forward
+    also at each of its row tiles. One dict per kernel: "fwd", "fwd_eval",
+    "lite" (the CUDA-core forward) or "fwd_mma", "fwd_eval_mma",
+    "lite_mma" (the tensor-core ones, with their row tile, tiles and the
+    clusters the card holds at once)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
-    cd, E_parts = torch.bfloat16, list(E_parts)
+    E_parts = list(E_parts)
     E = sum(E_parts)
     Hp = L.padded_width(E_parts, H, cd)
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
     if picked != (Hp_want, fwd_want, lite_want):
-        raise AssertionError(f"the layer at E={E_parts}, H={H} in bf16 runs {picked}")
+        raise AssertionError(f"the layer at E={E_parts}, H={H} in {cd} runs {picked}")
     mma = fwd_want.endswith("_mma")
     sfx = "_mma" if mma else ""
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
-             "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+             "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k + sfx: {"kernel": name, **shape} for k, name in (
         ("fwd", f"{fwd_want} (train)"), ("fwd_eval", f"{fwd_want} (eval)"), ("lite", lite_want))}
     for full in (False, True):
@@ -1747,11 +1837,13 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                                          f"{out[k + sfx]}")
             del want, ref, res
         del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls
+    size = torch.empty((), dtype=cd).element_size()
     for key, Hw in (("", Hp), ("true_", H)):
-        work = wide_layer_work(E, Hw, G, 2, ny)
+        work = wide_layer_work(E, Hw, G, size, ny)
         for k in out:
+            kernel = lite_want if k.startswith("lite") else fwd_want
             out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
-                [(*work[k.replace("_mma", "")], kernel_peak(cd))])
+                [(*work[k.replace("_mma", "")], kernel_peak(cd, kernel))])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k in out:
         out[k]["library_ms"] = lib[{"fwd": "cudnn_fwd_ms", "fwd_eval": "cudnn_inference_ms",
@@ -1863,17 +1955,15 @@ def wide_f32_kernels(dev, ny=2) -> dict:
     product) at each of ``WIDE_F32_LAYERS``, 400 rows: held against their
     plain twins with the main path's lengths at T = 300 (1e-4 x max(1,
     max|ref|); the gates computed twice must agree bit for bit, the eval and
-    train hs too; the forward at every row tile it is built for;
-    ``bilstm_gates.cu`` and ``bilstm_fwd_wide.cu`` by name too), then
-    timed at T = 1500, full lengths, each in turns with the CUDA-core kernel
-    by name (new, old, old, new), beside its bound at 495/3 TFLOP/s at the
-    padded widths and at the true ones (the CUDA-core kernel's at 67), the
-    twin (timed once, in the check) and one PyTorch call at the true widths,
-    TF32 off: cuBLAS ``addmm`` for the gates (both directions in one call),
-    cuDNN's one-layer f32 training and inference forward for the forward
-    (which does the input projection too). The forward at each row tile,
-    each timed in turns with the dispatch (new, other, other, new); its
-    plan's row tile and the clusters the card holds at once."""
+    train hs too; the forward at every row tile it is built for), then
+    timed at T = 1500, full lengths, beside its bound at 495/3 TFLOP/s at
+    the padded widths and at the true ones, the twin (timed once, in the
+    check) and one PyTorch call at the true widths, TF32 off: cuBLAS
+    ``addmm`` for the gates (both directions in one call), cuDNN's one-layer
+    f32 training and inference forward for the forward (which does the
+    input projection too). The forward at each row tile, each timed in
+    turns with the dispatch (new, other, other, new); its plan's row tile
+    and the clusters the card holds at once."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_recurrence, input_gates
 
@@ -1894,22 +1984,12 @@ def wide_f32_kernels(dev, ny=2) -> dict:
                 Ep, Hp, G, cd, dev, SEED + 70 + Hp + len(Ep), full_lengths=full, ny=ny,
                 T=T_TRAIN if full else 300)
             gates = lambda: L.bilstm_gates(parts, w_ih, bias, cd)  # noqa: E731
-            gates_old = lambda: L.bilstm_gates(parts, w_ih, bias, cd,  # noqa: E731
-                                               kernel="bilstm_gates")
             xg = gates()
             fwd = lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)  # noqa: E731
-            fwd_old = lambda: L.bilstm_fwd_wide_train(  # noqa: E731
-                xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
             ev = lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd)  # noqa: E731
-            ev_old = lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,  # noqa: E731
-                                               kernel="bilstm_fwd_wide")
             if full:
-                row["gates_ms"], row["gates_ms_again"], row["gates_cuda_core_ms"] = in_turns(
-                    gates, gates_old, 3)
-                row["fwd_ms"], row["fwd_ms_again"], row["fwd_cuda_core_ms"] = in_turns(
-                    fwd, fwd_old, 3)
-                row["fwd_eval_ms"], row["fwd_eval_ms_again"], row["fwd_eval_cuda_core_ms"] = \
-                    in_turns(ev, ev_old, 3)
+                for key, call in (("gates", gates), ("fwd", fwd), ("fwd_eval", ev)):
+                    row[f"{key}_ms"] = time_ms(call, 3)
                 for R in row_tiles:
                     d0, d1, o = in_turns(fwd, lambda: at_f32_rows(
                         L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh, cd), 2)
@@ -1937,8 +2017,7 @@ def wide_f32_kernels(dev, ny=2) -> dict:
                 _, row["fwd_eval_plain_ms"] = timed_once(
                     lambda: bidir_recurrence(xg, lengths, w_hh, cd))
                 names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
-                res = {"xg": rel_err(xg, ref, TOL[cd]),
-                       "cuda_core_xg": rel_err(gates_old(), ref, TOL[cd])}
+                res = {"xg": rel_err(xg, ref, TOL[cd])}
                 again = gates()
                 res["xg_recompute_vs_first"] = (float((again - xg).abs().max()),
                                                 bool(torch.equal(again, xg)))
@@ -1952,8 +2031,6 @@ def wide_f32_kernels(dev, ny=2) -> dict:
                     all(torch.equal(a, b) for a, b in zip(got_ev[:2], got[:2])))
                 row["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got, want))
                 row["gates_scaled_err"] = scaled_err(xg, ref)
-                res.update({f"cuda_core_train_{n}": rel_err(a, b, TOL[cd])
-                            for n, a, b in zip(names, fwd_old(), want)})
                 for R in row_tiles:
                     res.update({f"fwd_rows{R}_{n}": rel_err(a, b, TOL[cd])
                                 for n, a, b in zip(names, at_f32_rows(
@@ -1972,7 +2049,6 @@ def wide_f32_kernels(dev, ny=2) -> dict:
                         ("fwd_eval", "bilstm_fwd_wide_f32")):
             row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
             row[f"{k}_true_bound_ms"], _ = bound([(*true_work[k], kernel_peak(cd, name))])
-            row[f"{k}_cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
         lib = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H, layers=1)
         row["fwd_library_ms"], row["fwd_eval_library_ms"] = (lib["cudnn_fwd_ms"],
                                                             lib["cudnn_inference_ms"])
@@ -1981,46 +2057,57 @@ def wide_f32_kernels(dev, ny=2) -> dict:
 
 
 def lite_f32_96(dev) -> dict:
-    """``bilstm_bwd_lite.cu`` in f32 on its main path: the stacked layer of
-    the f32 two-layer model at embedding 80 (E = 2 x 80, run at H = 96,
-    one weight group, one dy stream a direction), 400 rows: held against
-    its plain twin with the main path's lengths at T = 300 (1e-4 x max(1,
-    max|ref|)), then timed at T = 1500, full lengths, beside its bound at
-    67 TFLOP/s at the padded and the true widths, the twin (timed once) and
-    cuDNN's one-layer f32 backward for the input at the true widths, TF32
-    off."""
+    """The f32 lite sweep on its main path, the stacked layer of the f32
+    two-layer model at embedding 80 (E = 2 x 80, run at H = 96, one weight
+    group, one dy stream a direction), 400 rows: the one-block 3xTF32 sweep
+    ``bilstm_bwd_lite_f32_resident.cu`` the dispatch names there, and
+    ``bilstm_bwd_lite.cu`` by name on the same operands, each held against
+    the plain twin with the main path's lengths at T = 300 (1e-4 x max(1,
+    max|ref|)), then timed at T = 1500, full lengths, in turns (new, old,
+    old, new), beside the bounds at 495/3 TFLOP/s (three tf32 passes) and
+    at 67 (the CUDA-core kernel's) at the padded and the true widths, the
+    twin (timed once) and cuDNN's one-layer f32 backward for the input at
+    the true widths, TF32 off."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite
 
     cd, E_parts, H, G, ny = torch.float32, [80, 80], 80, 1, 1
+    name = "bilstm_bwd_lite_f32_resident"
     Hp, Ep = L.padded_width(E_parts, H, cd), list(L.padded_parts(E_parts, H, cd))
-    if (Hp, L.lite_kernel(Hp, cd)) != (96, "bilstm_bwd_lite"):
+    if (Hp, L.lite_kernel(Hp, cd)) != (96, name):
         raise AssertionError(f"the stacked layer at embedding 80 in f32 runs at H={Hp} on "
                              f"{L.lite_kernel(Hp, cd)}")
-    row = {"layer": "stacked layer at embedding 80", "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
-           "E_parts": E_parts, "H": H, "padded_H": Hp, "padded_parts": Ep, "G": G, "ny": ny,
-           "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    row = {"layer": "stacked layer at embedding 80", "kernel": name, "B": B_TRAIN, "T": T_TRAIN,
+           "check_T": 300, "E_parts": E_parts, "H": H, "padded_H": Hp, "padded_parts": Ep,
+           "G": G, "ny": ny, "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             Ep, Hp, G, cd, dev, SEED + 96, full_lengths=full, ny=ny, T=T_TRAIN if full else 300)
         xg = L.bilstm_gates(parts, w_ih, bias, cd)
         hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+        new = lambda: L.bilstm_bwd_lite(*args)  # noqa: E731
+        old = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")  # noqa: E731
         if full:
-            row["ms"] = time_ms(lambda: L.bilstm_bwd_lite(*args), 3)
+            row["ms"], row["ms_again"], row["cuda_core_ms"] = in_turns(new, old, 3)
         else:
             ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
-            e, ok = rel_err(L.bilstm_bwd_lite(*args), ref, TOL[cd])
+            got = new()
+            res = {"dgates": rel_err(got, ref, TOL[cd]),
+                   "cuda_core_dgates": rel_err(old(), ref, TOL[cd]),
+                   "twice": (0.0, bool(torch.equal(new(), got)))}
+            row["scaled_err"] = scaled_err(got, ref)
             torch.cuda.synchronize()
-            row["max_abs_err"] = e
-            if not ok:
+            row["max_abs_err"] = {n: e for n, (e, _) in res.items()}
+            if not all(ok for _, ok in res.values()):
                 emit({"phase": "widths", "failed": row})
-                raise AssertionError(f"bilstm_bwd_lite.cu at H = 96 in f32 disagrees: {row}")
-            del ref
+                raise AssertionError(f"the f32 lite sweep at H = 96 disagrees: {row}")
+            del ref, got
         del parts, xg, hs_f, hs_b, cs_f, cs_b, args
     for key, Hw, Ew in (("", Hp, sum(Ep)), ("true_", H, sum(E_parts))):
-        row[f"{key}bound_ms"], row[f"{key}bound_by"] = bound(
-            [(*wide_layer_work(Ew, Hw, G, 4, ny)["lite"], PEAK_F32_FLOPS)])
+        work = wide_layer_work(Ew, Hw, G, 4, ny)["lite"]
+        row[f"{key}bound_ms"], row[f"{key}bound_by"] = bound([(*work, kernel_peak(cd, name))])
+        row[f"{key}cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
     row["library_ms"] = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H,
                                           layers=1)["cudnn_bwd_data_ms"]
     return row
@@ -2081,13 +2168,14 @@ def phase_widths(dev) -> dict:
     with the kernels it launched (in f32 the tensor-core gates, wide
     forward and lite sweep, never the CUDA-core ones); ``lite_f32_kernels``
     (the f32 tensor-core lite sweep at 288, 256 and 128);
-    ``wide_f32_kernels`` (the f32 tensor-core gates and wide forward there,
-    in turns with the CUDA-core ones by name); ``lite_f32_96``
-    (``bilstm_bwd_lite.cu`` in f32 on its main path); ``bwd_72_kernel``
+    ``wide_f32_kernels`` (the f32 tensor-core gates and wide forward
+    there); ``lite_f32_96`` (the one-block f32 lite sweep on its main path,
+    in turns with ``bilstm_bwd_lite.cu`` by name); ``bwd_72_kernel``
     (``bilstm_bwd.cu`` on its main path); ``wide_cuda_core_kernels`` at
     embedding 272's layer 0 (H = 288, the bf16 tensor-core forward and lite
-    sweep) and at embedding 80's stacked layer (H = 96, the CUDA-core
-    ones);
+    sweep) and at embedding 80's stacked layer (H = 96: the CUDA-core
+    forward in both dtypes, the CUDA-core lite sweep in bf16 and the
+    one-block one in f32);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -2116,6 +2204,9 @@ def phase_widths(dev) -> dict:
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
                                         "bilstm_fwd_wide", "bilstm_bwd_lite")
+    kernels_96_f32 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 52,
+                                            "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
+                                            torch.float32)
     steps = []
     for backend, width, dtype, expect in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -2127,7 +2218,8 @@ def phase_widths(dev) -> dict:
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
            "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96, "bwd_72": bwd_72,
-           "kernels_288": kernels_288, "kernels_96": kernels_96, "grad_checks": steps}
+           "kernels_288": kernels_288, "kernels_96": kernels_96,
+           "kernels_96_float32": kernels_96_f32, "grad_checks": steps}
     emit(out)
     return out
 
@@ -2175,12 +2267,7 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     # the backward recomputes the gates with the same dispatch: the same bits
     again = L.bilstm_gates(parts, w_ih, bias, dtype)
     res["xg_recompute_vs_first"] = (float((again - xg).abs().max()), bool(torch.equal(again, xg)))
-    del again
-    # the dispatch took the tensor-core gates (bf16, or 3xTF32 in f32); the
-    # CUDA-core kernel by name
-    res["cuda_core_xg"] = rel_err(
-        L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates"), ref, tol)
-    del ref
+    del again, ref
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype)
@@ -2189,10 +2276,12 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     res.update({f"eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, ev, want)})
     if L.wide_fwd_kernel(H, dtype) in ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32"):
         # the dispatch took a tensor-core forward (bf16, or 3xTF32 in f32):
-        # both variants give the same hs bits; the CUDA-core kernel by name
+        # both variants give the same hs bits
         res["eval_vs_train_hs"] = (
             max(float((a.float() - b.float()).abs().max()) for a, b in zip(ev[:2], got[:2])),
             all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
+    if L.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma":
+        # the CUDA-core kernel by name (bf16 up to 256 units)
         del got, ev
         got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
         res.update({f"cuda_core_train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
@@ -2558,22 +2647,25 @@ def phase_wide_kernel(dev) -> dict:
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
             # new, old, old, new: a tensor-core kernel and the CUDA-core one
-            # by name, on the same operands: every kernel (the lite sweep in
-            # bf16; in f32 it is timed alone, its CUDA-core kernel no longer
-            # taking 256 units in f32)
+            # by name, on the same operands: wgrad, and in bf16 the forward
+            # and the lite sweep; the gates (whose CUDA-core kernel is gone)
+            # and, in f32, the forward and the lite sweep (whose CUDA-core
+            # kernels no longer take 256 units in f32) are timed alone
             turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")),
-                     ("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype),
-                      lambda: L.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")),
-                     ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
-                      lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
-                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
-                      lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide"))]
+                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
+            alone = [("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype))]
+            fwd_lite = [("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
+                         lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
+                        ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
+                         lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide")),
+                        ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
+                         lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite"))]
             if bf16:
-                turns.append(("lite", lambda: L.bilstm_bwd_lite(*lite_args),
-                              lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite")))
+                turns += fwd_lite
             else:
-                add("lite_ms", time_ms(lambda: L.bilstm_bwd_lite(*lite_args), 3))
+                alone += [(key, new) for key, new, _ in fwd_lite]
+            for key, new in alone:
+                add(f"{key}_ms", time_ms(new, 3))
             for key, new, old in turns:
                 a, b, c = in_turns(new, old, 3)
                 add(f"{key}_ms", a)
@@ -2662,7 +2754,7 @@ def phase_wide_kernel(dev) -> dict:
             "fwd": kernel_peak(dtype, "bilstm_fwd_wide_f32"),
             "fwd_eval": kernel_peak(dtype, "bilstm_fwd_wide_f32")})
         if not bf16:
-            for key in ("wgrad", "lite", "gates", "fwd", "fwd_eval"):
+            for key in ("wgrad", "lite"):
                 t[f"{key}_cuda_core_bound_ms"], t[f"{key}_cuda_core_bound_by"] = bound(
                     [(*work[key], PEAK_F32_FLOPS)])
         timings[name] = t
@@ -2708,7 +2800,6 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
         groups={"gates_mma": "bilstm_gates_mma_kernel",
-                "gates_cuda_core": "bilstm_gates_kernel",
                 "gates_f32": "bilstm_gates_f32_kernel",
                 "fwd_wide_mma": "bilstm_fwd_wide_mma_kernel",
                 "fwd_wide": "bilstm_fwd_wide_kernel",
@@ -2726,7 +2817,7 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     old = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
                        "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
                        "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
-                       "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_gates",
+                       "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32",
                        "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
                        "bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32")
@@ -3476,6 +3567,35 @@ def main() -> int:
                 "bilstm_fwd.cu by name on the same operands (new, old, old, new); library: "
                 "cuDNN nn.LSTM inference, TF32 off; h32_*: row 3 at H=32, 96 rows, T=300",
     }]
+    # the f32 forward's 320-thread instance at E = H = 80: layer 0 of the
+    # f32 two-layer model at embedding 80 (its train steps and eval step)
+    e80 = tk["embedding_80"]
+    e80_launches = {d: train["steps_embedding_80"][d]["launches"] for d in e80}
+
+    def h80_fields(key, name):
+        e = e80["float32"][key]
+        ragged = [v for c in tk["ragged_checks"] if c["kernel"] == "bilstm_fwd_f32"
+                  for n, v in c["max_abs_err"].items() if n.startswith("eval_") == (key != "fwd")]
+        own = [v for n, v in e["max_abs_err"].items()
+               if not n.startswith("cuda_core_") and not n.endswith("_vs_train_hs")]
+        fields = {f"h80_{k}": e[k] for k in ("ms", "ms_again", "cuda_core_ms", "plain_ms",
+                                             "cuda_core_bound_ms", "library_ms", "scaled_err")}
+        fields.update({"h80_bound_ms": e[f"{key}_bound_ms"], "h80_bound_by": e[f"{key}_bound_by"],
+                       "h80_launches": e80_launches["float32"][name],
+                       "h80_max_abs_err": max(own + ragged),
+                       "h80_cuda_core_max_abs_err": max(v for n, v in e["max_abs_err"].items()
+                                                        if n.startswith("cuda_core_"))})
+        if fields["h80_launches"] <= 0:
+            raise AssertionError(f"the f32 model at embedding 80 never ran {name}")
+        return fields
+
+    h80_work = ("; h80_*: its 320-thread instance on layer 0 of the f32 two-layer model at "
+                "embedding 80 (E=H=80, 5 groups), 400 rows, T=1500, 8-row tiles, launches in "
+                "that model's steps, cuda_core_ms: bilstm_fwd.cu by name in turns (its bound "
+                "cuda_core_bound_ms at 67 TFLOP/s), library: cuDNN one-layer f32 at E=H=80; "
+                "max_abs_err also over 27 rows in 3 groups at T = 1 and 5")
+    kernels[0].update(h80_fields("fwd_eval", "bilstm_layer_fwd_f32"))
+    kernels[0]["work"] += h80_work
     t32, t16 = tk["timings"]["float32"], tk["timings"]["bfloat16"]
     sweep_errs = ("dxf0", "dxf1", "dxb0", "dxb1", "dgc", "dbias")
     train_errs = {
@@ -3519,11 +3639,12 @@ def main() -> int:
                 "tf32_one_pass_scaled_err": max(c["fwd_tf32_one_pass_scaled_err"]
                                                 for c in tk["checks"] if c["dtype"] == "float32"),
             })
+            entry.update(h80_fields("fwd", name))
             entry["work"] += ("; 8-row tiles; bound at 495/3 TFLOP/s (three tf32 passes); "
                               "cuda_core_ms: bilstm_fwd.cu by name on the same operands (new, "
                               "old, old, new); eval_*: the eval variant on them; library: cuDNN "
                               "nn.LSTM training forward, TF32 off; tf32_one_pass_scaled_err: the "
-                              "twin in one tf32 pass, against the f32 tolerance 1e-4")
+                              "twin in one tf32 pass, against the f32 tolerance 1e-4" + h80_work)
         else:
             # the scaled widths: layer 0 and one E = 2 x 256 layer at H = 256,
             # whose f32 main path is the f32 gradient step there
@@ -3574,21 +3695,16 @@ def main() -> int:
                 "against the f32 tolerance 1e-4; library: cuDNN nn.LSTM backward (input) in "
                 "f32, TF32 off",
     })
-    # the CUDA-core forward (both variants), sweep and wgrad at their main
-    # path's shapes: the f32 model at embedding 80 (its train steps and an
-    # eval step)
     # the CUDA-core forward (both variants) and wgrad and the one-stage sweep
     # at their main path's shapes: layer 0 of the two-layer model at
-    # embedding 80 (its train steps and an eval step); f32 is the main path
-    # of the forward, wgrad and the one-stage sweep
-    e80 = tk["embedding_80"]
-    e80_launches = {d: train["steps_embedding_80"][d]["launches"] for d in e80}
+    # embedding 80 (its train steps and an eval step); bf16 is the main path
+    # of the CUDA-core forward, f32 that of wgrad and the one-stage sweep
     library = {"fwd_eval": "cuDNN one-layer nn.LSTM inference",
                "fwd": "cuDNN one-layer nn.LSTM training forward",
                "bwd": "cuDNN one-layer nn.LSTM backward (input)", "wgrad": "cuBLAS products"}
     for key, name, source, dtype in (
-        ("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu", "float32"),
-        ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "float32"),
+        ("fwd_eval", "bilstm_layer_fwd", "bilstm_fwd.cu", "bfloat16"),
+        ("fwd", "bilstm_layer_fwd_train", "bilstm_fwd.cu", "bfloat16"),
         ("bwd", "bilstm_bwd_f32_onestage", "bilstm_bwd_f32_onestage.cu", "float32"),
         ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "float32"),
     ):
@@ -3635,12 +3751,18 @@ def main() -> int:
             entry["work"] += ("; bfloat16_by_name_*: this kernel asked for by name on the bf16 "
                               "layer's operands, in turns with bilstm_wgrad_mma")
         else:
-            # the same kernel in the other dtype, at the same shapes
+            # f32 at embedding 80 takes bilstm_fwd_f32; this kernel there by name
             o = e80[other][key]
-            entry.update({f"{other}_{k}": o[k] for k in ("ms", "plain_ms", "library_ms")})
-            entry[f"{other}_bound_ms"] = o[f"{key}_bound_ms"]
-            entry[f"{other}_launches"] = e80_launches[other][name]
-            entry["work"] += f"; {other}_*: the same layer in {other}"
+            entry.update({"float32_by_name_ms": o["cuda_core_ms"],
+                          "float32_by_name_bound_ms": o["cuda_core_bound_ms"],
+                          "float32_by_name_max_abs_err": max(
+                              v for n, v in o["max_abs_err"].items()
+                              if n.startswith("cuda_core_"))})
+            entry["work"] += ("; float32_by_name_*: this kernel asked for by name on the f32 "
+                              "layer's operands, in turns with bilstm_fwd_f32, its bound at 67 "
+                              "TFLOP/s")
+        if entry["launches"] <= 0:
+            raise AssertionError(f"the {dtype} model at embedding 80 never ran {name}")
         kernels.append(entry)
     # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
     # take; its main path is layer 0 (E = H = 72) of the bf16 two-layer model
@@ -3768,77 +3890,87 @@ def main() -> int:
     }
     # the CUDA-core wide forward and lite sweep: their main path is the
     # stacked layer of the two-layer model at embedding 80 (run at H = 96),
-    # f32 and bf16; each by name at the scaled widths in turns with the
-    # tensor-core kernel (the lite sweep in bf16 only), the forward in f32
-    # at 288 / 256 / 128 (phase widths). The CUDA-core gates
-    # (bilstm_gates.cu) have no main path any more: every wide shape takes a
-    # tensor-core gates kernel, so their times ride as cuda_core_* fields of
-    # bilstm_gates_f32's and bilstm_gates_mma's entries
+    # the forward's in f32 (the same in bf16: bfloat16_*), the lite sweep's
+    # in bf16 (by name in f32 there, in turns with the one-block f32 sweep:
+    # float32_by_name_*); each by name in bf16 at the scaled widths in turns
+    # with the tensor-core kernel (bf16_h256_ms)
     f32_scaled = scaled["grad_check"]["launches"]
     lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
-    e80_f32 = train["steps_embedding_80"]["float32"]["launches"]
+    k96, k96_f32 = widths["kernels_96"], widths["kernels_96_float32"]
     for key, name, source, replaces in (
         ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
     ):
+        dtype = "bfloat16" if key == "lite" else "float32"
+        main = (k96 if key == "lite" else k96_f32)[key]
         cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": e80_f32[name],
-            "max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
-                               for n, v in c["max_abs_err"].items() if n in cuda_core_errs),
+            "launches": e80_launches[dtype][name],
+            "max_abs_err": max(main["max_abs_err"].values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+                                    "library_ms")},
+            "bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
+            "bf16_h256_max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
+                                         for n, v in c["max_abs_err"].items()
+                                         if n in cuda_core_errs),
+            "work": f"the stacked layer of the {dtype} two-layer model at embedding 80 "
+                    "(E=80+80, run at H=96, one weight group, one dy stream), 400 rows, "
+                    f"T=1500, its main path: launches in that model's {dtype} steps; bound at "
+                    f"the {dtype} rate at H=96 (true_bound_ms at 80); library: cuDNN one-layer "
+                    f"{dtype} " + ("backward (input)" if key == "lite" else "forward")
+                    + " at E=160, H=80, TF32 off; bf16_h256_ms: by name on the bf16 scaled "
+                      "step's operands (layer 0 + one E=2x256 layer), in turns with the "
+                      "tensor-core kernel",
         }
         if key == "lite":
-            # f32 on its main path; bf16 there too (h96_*), and by name in bf16
-            # at the scaled widths
-            entry.update({
-                "max_abs_err": l96["max_abs_err"], "ms": l96["ms"], "plain_ms": l96["plain_ms"],
-                "bound_ms": l96["bound_ms"], "bound_by": l96["bound_by"],
-                "true_bound_ms": l96["true_bound_ms"], "library_ms": l96["library_ms"],
-                "bf16_h256_ms": w16["lite_cuda_core_ms"],
-                "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, "
-                        "run at H=96, one weight group, one dy stream), 400 rows, T=1500, its "
-                        "main path: launches in that model's f32 steps; bound at 67 TFLOP/s at "
-                        "H=96 (true_bound_ms at 80); library: cuDNN one-layer f32 backward "
-                        "(input) at E=160, H=80, TF32 off; bf16_h256_ms: by name on the bf16 "
-                        "scaled step's operands (layer 0 + one E=2x256 layer), in turns with "
-                        "bilstm_bwd_lite_mma",
-            })
+            entry.update({"float32_by_name_ms": l96["cuda_core_ms"],
+                          "float32_by_name_bound_ms": l96["cuda_core_bound_ms"],
+                          "float32_by_name_max_abs_err": l96["max_abs_err"]["cuda_core_dgates"]})
+            entry["work"] += ("; float32_by_name_*: by name on the f32 layer's operands, in "
+                              "turns with bilstm_bwd_lite_f32_resident, its bound at 67 TFLOP/s")
+            other_launches = e80_launches["float32"]["bilstm_bwd_lite_f32_resident"]
         else:
-            entry.update({
-                "ms": w32[f"{key}_cuda_core_ms"],
-                "plain_ms": w32[f"{key}_plain_ms"],
-                "bound_ms": w32[f"{key}_cuda_core_bound_ms"],
-                "bound_by": w32[f"{key}_cuda_core_bound_by"],
-                "library_ms": w32[f"{key}_library_ms"],
-                "bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
-                **{f"{h}_ms": r[f"{key}_cuda_core_ms"] for h, r in wf32.items()},
-                "work": "ms: by name on layer 0 (E=256, 5 groups) + one E=2x256 layer of the f32 "
-                        "scaled step, 400 rows, T=1500, H=256, in turns with the f32 "
-                        "tensor-core kernel; bound at 67 TFLOP/s; bf16_h256_ms: the same on the "
-                        "bf16 operands; hN_ms: by name on the f32 layers of phase widths' "
-                        "wide_f32 (H=288 layer 0 and stacked layer at embedding 272, 256, 128 "
-                        "at embedding 100), in turns; library: cuDNN one bidirectional "
-                        "nn.LSTM layer in f32, TF32 off; launches: the f32 steps at embedding "
-                        "80 (H=96)",
-            })
-        # bf16 at H = 96: the stacked layer of the two-layer model at embedding 80
-        k96 = widths["kernels_96"][key]
-        entry.update({f"h96_{k}": k96[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
-        entry["h96_max_abs_err"] = max(k96["max_abs_err"].values())
-        entry["h96_launches"] = train["steps_embedding_80"]["bfloat16"]["launches"][name]
-        entry["work"] += ("; h96_*: bf16 on the stacked layer of the two-layer model at "
-                          "embedding 80 (E=80+80, run at H=96, one weight group), 400 rows, "
-                          "T=1500, bound at H=96 (true_bound_ms at 80), launches in that "
-                          "model's bf16 steps, library: cuDNN one-layer bf16 at E=160, H=80")
-        if min(entry["launches"], entry["h96_launches"]) <= 0:
+            o = k96[key]
+            entry.update({f"bfloat16_{k}": o[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
+            entry["bfloat16_max_abs_err"] = max(o["max_abs_err"].values())
+            entry["bfloat16_launches"] = other_launches = e80_launches["bfloat16"][name]
+            entry["work"] += "; bfloat16_*: the same layer in bf16, launches in its bf16 steps"
+        if min(entry["launches"], other_launches) <= 0:
             raise AssertionError(f"the models at embedding 80 never ran {name} at H=96")
         kernels.append(entry)
+    # the one-block f32 lite sweep: its main path is the stacked layer of
+    # the f32 model at embedding 80 (run at H = 96)
+    name = "bilstm_bwd_lite_f32_resident"
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
+        "launches": e80_launches["float32"][name],
+        "max_abs_err": max([l96["max_abs_err"]["dgates"],
+                            max(k96_f32["lite"]["max_abs_err"].values())]
+                           + [v for c in tk["ragged_checks"] if c["kernel"] == name
+                              for v in c["max_abs_err"].values()]),
+        "scaled_err": l96["scaled_err"],
+        **{k: l96[k] for k in ("ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms",
+                               "bound_by", "true_bound_ms", "cuda_core_bound_ms",
+                               "true_cuda_core_bound_ms", "library_ms")},
+        "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run at "
+                "H=96, one weight group, one dy stream), 400 rows, T=1500; launches in that "
+                "model's f32 steps; bound at 495/3 TFLOP/s (three tf32 passes) at H=96 "
+                "(true_bound_ms at 80; cuda_core_bound_ms at 67); cuda_core_ms: "
+                "bilstm_bwd_lite.cu by name on the same operands (new, old, old, new); library: "
+                "cuDNN one-layer f32 backward (input) at E=160, H=80, TF32 off; max_abs_err also "
+                "over the check at T=1500 and 27 rows in 3 groups at T = 1 and 5",
+    })
+    if kernels[-1]["launches"] <= 0:
+        raise AssertionError("the f32 model at embedding 80 never ran the one-block lite sweep")
     # the f32 tensor-core gates and wide forward (both variants): the f32
     # gradient step at the scaled widths and its eval step, and the f32
     # models at embedding 100 (H = 128) and 272 (288)
@@ -3863,32 +3995,26 @@ def main() -> int:
             "launches": f32_scaled.get(name, 0),
             "max_abs_err": max(picked),
             "ms": w32[f"{key}_ms"],
-            "ms_again": w32[f"{key}_ms_again"],
             "plain_ms": w32[f"{key}_plain_ms"],
             "bound_ms": w32[f"{key}_bound_ms"],
             "bound_by": w32[f"{key}_bound_by"],
             "library_ms": w32[f"{key}_library_ms"],
-            "cuda_core_ms": w32[f"{key}_cuda_core_ms"],
-            "cuda_core_bound_ms": w32[f"{key}_cuda_core_bound_ms"],
             "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, f32, 400 "
                     "rows, T=1500, H=256; launches: the f32 gradient step at the scaled widths "
-                    "and the eval step after it; bound at 495/3 TFLOP/s (three tf32 passes; "
-                    "cuda_core_bound_ms at 67); cuda_core_ms: "
-                    + ("bilstm_gates.cu" if key == "gates" else "bilstm_fwd_wide.cu")
-                    + " by name on the same operands (new, old, old, new); library: "
+                    "and the eval step after it; bound at 495/3 TFLOP/s (three tf32 passes); "
+                    "library: "
                     + ("one torch.addmm in f32 (cuBLAS)" if key == "gates" else
                        "cuDNN " + ("training" if key == "fwd" else "inference")
                        + " forward of one bidirectional nn.LSTM layer in f32")
                     + ", TF32 off; hN_*: the f32 layers of phase widths' wide_f32 (layer 0 and "
                       "the stacked layer at embedding 272, run at H=288; layer 0 of the scaled "
                       "configuration; layer 0 at embedding 100, at H=128), 400 rows, T=1500, "
-                      "in turns with the CUDA-core kernel, bound at the padded widths "
-                      "(true_bound_ms at the true ones); hN_launches in those models' steps",
+                      "bound at the padded widths (true_bound_ms at the true ones); "
+                      "hN_launches in those models' steps",
         }
         for h, r in wf32.items():
             entry.update({f"{h}_{k}": r[f"{key}_{k}"] for k in (
-                "ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms", "bound_by",
-                "true_bound_ms", "cuda_core_bound_ms", "library_ms")})
+                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
             if key == "fwd":
                 entry[f"{h}_rows_ms"] = {k[4:]: v for k, v in r.items()
                                          if k.startswith("fwd_rows") and k.endswith("_ms")
@@ -3934,17 +4060,19 @@ def main() -> int:
             "bound_ms": w16[f"{key}_bound_ms"],
             "bound_by": w16[f"{key}_bound_by"],
             "library_ms": w16[f"{key}_library_ms"],
-            "ms_again": w16[f"{key}_ms_again"],
-            "cuda_core_ms": w16[f"{key}_cuda_core_ms"],
             "library_f32_ms": w32[f"{key}_library_ms"],
             "work": "layer 0 (E=256, 5 groups) + one E=2x256 layer of the scaled step, bf16, "
-                    "400 rows, T=1500, H=256; cuda_core_ms: the CUDA-core kernel by name on the "
-                    f"same operands (new, old, old, new); library: {library}",
+                    f"400 rows, T=1500, H=256; library: {library}",
         }
         if key == "gates":
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
         else:
-            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith(f"{key}_rows")}
+            entry.update({"ms_again": w16[f"{key}_ms_again"],
+                          "cuda_core_ms": w16[f"{key}_cuda_core_ms"],
+                          "rows_ms": {k: v for k, v in w16.items()
+                                      if k.startswith(f"{key}_rows")}})
+            entry["work"] += ("; cuda_core_ms: the CUDA-core kernel by name on the same "
+                              "operands (new, old, old, new)")
         if key in ("fwd", "fwd_eval"):
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"][f"{key}_mma"]
@@ -4244,7 +4372,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 34 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 35 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

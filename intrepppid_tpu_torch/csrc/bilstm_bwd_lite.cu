@@ -6,7 +6,7 @@
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel with
 //     fused_input=False (via _bwd_pallas_lite, :723) -- the lite backward
 //     of the large-H plan (the scaled configuration's H = 256);
-// and, with bilstm_gates.cu before it and the input-side products and
+// and, with the input gates before it and the input-side products and
 // bilstm_wgrad.cu after it (ops/lstm_stack.py), _bwd_kernel with
 // fused_input=True (via _bwd_pallas, :603) at the widths where
 // bilstm_bwd.cu's resident weights exceed shared memory.
@@ -15,7 +15,7 @@
 // reverse of that direction's forward order, carrying dh and dc (f32).
 // Per step and row r:
 //   * gates = xg[d, pos, r] + h_prev @ W_hh[d, g]^T, with xg the f32 input
-//     gates (bilstm_gates.cu, the values the forward used) and h_prev the
+//     gates (bilstm_gates_*.cu, the values the forward used) and h_prev the
 //     forward stream at the previous position (hs_f[pos-1] for d = 0,
 //     hs_b[pos+1] for d = 1, zero past the ends);
 //   * c_new = f * c_prev + i * g with c_prev from the compute-dtype cell

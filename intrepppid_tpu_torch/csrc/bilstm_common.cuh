@@ -1,5 +1,5 @@
 // Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
-// bilstm_wgrad.cu, bilstm_gates.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
+// bilstm_wgrad.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
 // lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
 // lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
 // kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu among them on

@@ -40,10 +40,11 @@
 // double-buffered in shared memory in f32, and the next step's x is loaded
 // into registers while the current step computes, so there is one
 // __syncthreads per step.
-// Shapes it keeps: f32 past H = 64 (a one-layer model at embedding 80), and
-// the bf16 shapes bilstm_fwd_mma.cu is not instantiated for; f32 at
-// H <= 64 goes to bilstm_fwd_f32.cu and bf16 there to bilstm_fwd_mma.cu,
-// both on the tensor cores (ops/lstm_cuda.py:fwd_kernel).
+// Shapes it keeps: the bf16 shapes bilstm_fwd_mma.cu is not instantiated
+// for (E = H = 80 among them: layer 0 of the bf16 model at embedding 80);
+// f32 up to H = 80 goes to bilstm_fwd_f32.cu and bf16 at H <= 64 to
+// bilstm_fwd_mma.cu, both on the tensor cores (ops/lstm_cuda.py:fwd_kernel),
+// and f32 at E = H = 80 reaches this kernel by name only.
 
 #include "bilstm_common.cuh"
 

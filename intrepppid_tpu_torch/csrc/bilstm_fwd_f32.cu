@@ -1,14 +1,15 @@
-// Bidirectional LSTM layer forward, f32 compute dtype, H <= 64: the
+// Bidirectional LSTM layer forward, f32 compute dtype, H <= 80: the
 // tensor-core variant in three tf32 passes, hand-written for Hopper (sm_90a).
 //
 // Replaces, like bilstm_fwd_mma.cu (bf16) and bilstm_fwd.cu (which keeps the
-// f32 shapes this kernel does not take, H > 64), the TPU kernels
+// bf16 shapes neither tensor-core forward takes), the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _fwd_kernel_packed (via
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states
 //     False (eval variant: the serve path, infer from_csv) and True (train
 //     variant, which also emits the cell stream for the backward);
 //   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas)
-//     -- the same function at the other resident widths.
+//     -- the same function at the other resident widths, layer 0 of the
+//     model at embedding 80 (E = H = 80) among them.
 //
 // Function (the contract of ops/lstm.py:bidir_layer, as bilstm_fwd.cu): for
 // each direction d and row r, step s reads position pos = s (d = 0) or
@@ -55,7 +56,14 @@
 //   * the cell's sigmoid and tanh from ex2 / rcp (bilstm_mma.cuh);
 //   * a tile stops at its longest row: past it the forward direction's
 //     state is frozen (its final h and c are written there), and the
-//     reverse direction has not started (zeros).
+//     reverse direction has not started (zeros);
+//   * at H = 80 (layer 0 of the model at embedding 80) the block has 10
+//     warps, 320 threads, in an instance of its own whose launch bound
+//     leaves the H <= 64 instances their 255 registers a thread (320
+//     threads get 204): its weights (320 rows of stride 168, 215,040 B at
+//     E = 80) and two 8-row stages take 225,792 B, so its tiles are 8 rows
+//     (16 would need 236,544 B of the 232,448 a block may use); at the
+//     train step's 400 rows in 5 groups that is 100 blocks in one wave.
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -65,8 +73,11 @@ namespace {
 using namespace bilstm;
 
 constexpr int kMaxChunks = 2;   // 16-byte x chunks each thread copies per step
-constexpr int kMaxThreads = 256;
-constexpr int kMaxH = 64;
+// threads a block (4H): at most kSmallThreads in the instances up to H = 64,
+// kMaxThreads in the H = 80 ones, each instance's launch bound its own
+constexpr int kSmallThreads = 256;
+constexpr int kMaxThreads = 320;
+constexpr int kMaxH = 80;
 constexpr int kStrideAlign = 32, kStridePad = 8;
 
 struct Args {
@@ -92,10 +103,11 @@ __host__ __device__ constexpr int k_stride(int K) {
 // grid (tiles, 2), block 32 * H / 8 threads, row tiles of 8 NT rows. HT and
 // ET (the layer's H and total input width E) are template parameters for
 // the model's shapes, so the product loop unrolls whole and its loads run
-// ahead of the products; HT = ET = 0 is the same code with both read at run
-// time.
+// ahead of the products; ET = 0 is the same code with E read at run time,
+// HT = ET = 0 with both (H <= 64).
 template <int HT, int ET, int NT>
-__global__ void __launch_bounds__(kMaxThreads, 1) bilstm_fwd_f32_kernel(const Args a) {
+__global__ void __launch_bounds__(HT > 64 ? kMaxThreads : kSmallThreads, 1)
+    bilstm_fwd_f32_kernel(const Args a) {
   constexpr int R = kMmaTile * NT;  // rows of a tile
   const int tile = blockIdx.x, d = blockIdx.y;
   const int H = HT ? HT : a.H, H4 = 4 * H, T = a.T, B = a.B;
@@ -326,6 +338,15 @@ int launch(const Args& a, int tiles, int threads, int smem, cudaStream_t stream)
 
 template <int NT>
 int launch_shape(const Args& a, int E, int tiles, int threads, int smem, cudaStream_t st) {
+  // H = 80: 320-thread blocks, 8-row tiles only (16 do not fit shared
+  // memory); E = 80 is layer 0 of the model at embedding 80
+  if (a.H == 80) {
+    if constexpr (NT == 1) {
+      if (E == 80) return launch<80, 80, NT>(a, tiles, threads, smem, st);
+      return launch<80, 0, NT>(a, tiles, threads, smem, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   // the model's layers (E = H below, E = 2H stacked) at its two widths
   if (a.H == 64 && E == 64) return launch<64, 64, NT>(a, tiles, threads, smem, st);
   if (a.H == 64 && E == 128) return launch<64, 128, NT>(a, tiles, threads, smem, st);
@@ -352,8 +373,9 @@ const char* bilstm_fwd_f32_error_string(int err) { return cudaGetErrorString((cu
 // cs_b null selects the eval variant. `rows` (8 or 16) is the row tile;
 // each of the G weight groups (B / G rows) is cut into its own tiles:
 // `tiles` = G * ceil(B / G / rows); threads = 4H; smem the dynamic shared
-// memory (4H + 2 rows) * k_stride(E + H) * 4 bytes. H % 16 == 0, H <= kMaxH,
-// input parts multiples of 8. Returns a cudaError_t (0 on success).
+// memory (4H + 2 rows) * k_stride(E + H) * 4 bytes. H % 16 == 0, H <= kMaxH
+// (8-row tiles at H = 80), input parts multiples of 8. Returns a cudaError_t
+// (0 on success).
 int bilstm_fwd_f32(const void* x0, const void* x1, int E0, int E1, const void* lengths,
                    const void* w_ih, const void* w_hh, const void* bias, void* hs_f, void* hs_b,
                    void* cs_f, void* cs_b, void* hn, void* cn, int T_steps, int B, int H, int G,

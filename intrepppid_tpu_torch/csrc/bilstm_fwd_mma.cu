@@ -1,8 +1,8 @@
 // Bidirectional LSTM layer forward, bf16 compute dtype, H <= 64: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_fwd_f32.cu (f32) and bilstm_fwd.cu (which keeps f32
-// past H = 64 and the bf16 shapes this kernel is not instantiated for), the
+// Replaces, like bilstm_fwd_f32.cu (f32) and bilstm_fwd.cu (which keeps the
+// bf16 shapes this kernel is not instantiated for), the
 // TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _fwd_kernel_packed (via
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states

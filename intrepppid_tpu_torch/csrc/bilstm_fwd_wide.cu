@@ -1,7 +1,7 @@
 // Bidirectional LSTM layer recurrence for layers whose weights do not fit
 // one block's shared memory, hand-written for Hopper (sm_90a).
 //
-// Replaces, together with bilstm_gates.cu (the input projection), the TPU
+// Replaces, together with the input projection (bilstm_gates_*.cu), the TPU
 // kernel
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _fwd_kernel (via _fwd_pallas,
 //     :376) -- at the widths the TPU's lite plan serves (H >= ~192, the
@@ -13,7 +13,7 @@
 // Function: for each direction d (0 forward, 1 reverse) and row r, step s
 // reads position pos = s (d = 0) or T-1-s (d = 1) and computes
 //   gates = xg[d, pos, r] + h @ W_hh[d, g]^T
-// (xg the f32 input gates from bilstm_gates.cu, gate order i, f, g, o;
+// (xg the f32 input gates from bilstm_gates_*.cu, gate order i, f, g, o;
 // g = r / (B / G), the row's weight group), then the cell update. The state
 // moves iff pos < lengths[r], as in bilstm_fwd.cu. Every step writes the
 // (possibly frozen) h to hs_f[pos] / hs_b[pos], and in the train variant c
@@ -47,12 +47,9 @@
 // Both are in bilstm_fwd_wide_mma.cu (bf16 at H = 128 and 256: one bf16
 // weight copy leaves room for two h tiles), which takes those shapes over;
 // this kernel keeps the other widths (96, 160, 192, 224 in either dtype;
-// bilstm_fwd_wide_f32.cu takes f32 at 128, 256 and 288, which reach this
-// kernel by name). Up to H = 256 it runs in blocks instantiated for 256
-// threads (255 registers a thread); f32 at H = 257 to 288, by name, takes a
-// second instance for 288-thread blocks (224 registers a thread), whose
-// slice (162 KB at 288) and h tile still fit shared memory at 2, 4 and 7
-// rows a thread.
+// bilstm_fwd_wide_f32.cu takes f32 at 128, 256 and 288, and bf16 at 128 and
+// 256 reaches this kernel by name). It runs in blocks instantiated for 256
+// threads (255 registers a thread).
 
 #include <cooperative_groups.h>
 
@@ -181,7 +178,7 @@ bilstm_fwd_wide_kernel(const float* __restrict__ xg, const int* __restrict__ len
 extern "C" {
 
 int bilstm_fwd_wide_cluster() { return kWideCluster; }
-int bilstm_fwd_wide_max_threads() { return kWideMaxThreads; }
+int bilstm_fwd_wide_max_threads() { return kWideSmallThreads; }
 int bilstm_fwd_wide_rows_mask() { return kWideRowsMask; }
 
 const char* bilstm_fwd_wide_error_string(int err) {
@@ -191,8 +188,7 @@ const char* bilstm_fwd_wide_error_string(int err) {
 // dtype 0: float32, 1: bfloat16; rows_per_thread one of kWideRows; xg
 // (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G, 4H, H) with B % G == 0;
 // hs_f, hs_b (and cs_f, cs_b, null for the eval variant) (T, B, H) in the
-// dtype; hn, cn (2, B, H) f32. H % 32 == 0, H <= kWideMaxThreads (f32) or
-// kWideSmallThreads (bf16); `tiles`
+// dtype; hn, cn (2, B, H) f32. H % 32 == 0, H <= kWideSmallThreads; `tiles`
 // = G * ceil((B / G) / (8 * rows_per_thread)). With max_clusters non-null,
 // nothing is launched: *max_clusters receives how many clusters of this
 // configuration the card holds at once. Returns a cudaError_t (0 on success).
@@ -209,7 +205,7 @@ int bilstm_fwd_wide(int dtype, int rows_per_thread, const void* xg, const void* 
                        static_cast<T*>(hs_b), static_cast<T*>(cs_f), static_cast<T*>(cs_b),
                        static_cast<float*>(hn), static_cast<float*>(cn), T_steps, B, H, G);
   };
-  return dispatch_wide<kWideMaxThreads, kWideSmallThreads>(dtype, rows_per_thread, H, launch);
+  return dispatch_wide<kWideSmallThreads, kWideSmallThreads>(dtype, rows_per_thread, H, launch);
 }
 
 }  // extern "C"

@@ -1,8 +1,7 @@
 // Input projection of a bidirectional LSTM layer, f32 compute dtype: the
 // tensor-core variant in three tf32 passes, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_gates.cu (the CUDA-core kernel, reached here by
-// name only) and bilstm_gates_mma.cu (bf16), the input-gate product that
+// Replaces, like bilstm_gates_mma.cu (bf16), the input-gate product that
 // the TPU kernels form in their own body:
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _xg2 (:255-283), called by
 //     _fwd_kernel (row 3, via _fwd_pallas) and _bwd_kernel with

@@ -22,10 +22,10 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``bilstm_layer_fwd_train_mma`` launch ``csrc/bilstm_fwd_mma.cu`` (bf16,
     H <= 64: the products on the tensor cores), ``bilstm_layer_fwd_f32`` and
     ``bilstm_layer_fwd_train_f32`` launch ``csrc/bilstm_fwd_f32.cu`` (f32,
-    H <= 64: three tf32 passes a product on the tensor cores), and the two
+    H <= 80: three tf32 passes a product on the tensor cores), and the two
     wrappers themselves launch ``csrc/bilstm_fwd.cu`` for the rest (CUDA
-    cores: f32 past H = 64, and the bf16 shapes the tensor-core forward does
-    not take). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
+    cores: the bf16 shapes the tensor-core forward does not take, e.g.
+    H = 80). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Four kernels do it, picked by shape and dtype (``sweep_kernel``):
@@ -45,9 +45,8 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     their body (``_xg2``), by one of two kernels (``gates_kernel``):
     ``bilstm_gates_mma`` launches ``csrc/bilstm_gates_mma.cu`` (bf16: a GEMM
     on the tensor cores), ``bilstm_gates_f32`` launches
-    ``csrc/bilstm_gates_f32.cu`` (f32: the same GEMM in three tf32 passes);
-    ``bilstm_gates`` itself launches ``csrc/bilstm_gates.cu`` (CUDA cores)
-    by name only. Plain twin of all three: ``ops/lstm.py:input_gates``.
+    ``csrc/bilstm_gates_f32.cu`` (f32: the same GEMM in three tf32 passes).
+    Plain twin of both: ``ops/lstm.py:input_gates``.
   * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` are the
     recurrence over those gates with ``W_hh`` split over a cluster of 8
     blocks, by one of three kernels (``wide_fwd_kernel``):
@@ -63,16 +62,19 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     these widths. Plain twin of all three: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
-    out), by one of three kernels (``lite_kernel``):
+    out), by one of four kernels (``lite_kernel``):
     ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
     H = 128, 256 and 288: the products on the tensor cores; at 288 an
     instance whose cluster splits the unit groups 4 / 5 a block),
     ``bilstm_bwd_lite_f32`` launches ``csrc/bilstm_bwd_lite_f32.cu`` (f32 at
     those widths: three tf32 passes on the f32 fragment copy of ``W_hh^T``
-    read from L2, ``recurrence_f32_weights``), ``bilstm_bwd_lite`` itself
-    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (96, 160, 192 and 224;
-    CUDA cores). Plain twin of all three:
-    ``ops/lstm.py:bidir_layer_sweep_lite``.
+    read from L2, ``recurrence_f32_weights``),
+    ``bilstm_bwd_lite_f32_resident`` launches
+    ``csrc/bilstm_bwd_lite_f32_resident.cu`` (f32 at 96: three tf32 passes,
+    one block a row tile with ``W_hh`` resident in shared memory),
+    ``bilstm_bwd_lite`` itself launches ``csrc/bilstm_bwd_lite.cu`` for the
+    rest (bf16 at 96, 160, 192 and 224, f32 at the last three; CUDA cores).
+    Plain twin of all four: ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
   three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
@@ -138,9 +140,10 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_gates``,
-``bilstm_bwd_lite``, ``lstm_recurrence_fwd``, ``lstm_recurrence_bwd`` and
-``lstm_recurrence_wgrad``.
+the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_bwd_lite``,
+``lstm_recurrence_fwd``, ``lstm_recurrence_bwd`` and
+``lstm_recurrence_wgrad``; ``bilstm_gates`` only dispatches, and
+``bilstm_gates_mma`` or ``bilstm_gates_f32`` counts.
 """
 from __future__ import annotations
 
@@ -177,7 +180,7 @@ SMEM_LIMIT = 232448
 # the kernels' compile-time constants, checked against each built library
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
-# bilstm_wgrad.cu (kTile), bilstm_gates.cu (kBN, kBK), bilstm_common.cuh
+# bilstm_wgrad.cu (kTile), bilstm_common.cuh
 # (kWideCluster, kWideMaxThreads, kRecMaxH, kWideRowsMask), bilstm_bwd_lite.cu and
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
@@ -189,7 +192,8 @@ SMEM_LIMIT = 232448
 # kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
-# kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
+# kStridePad), bilstm_bwd_lite_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads,
+# kStrideAlign, kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
 # bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
 # bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad, the uneven instance's
@@ -203,14 +207,14 @@ SMEM_LIMIT = 232448
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
-GATES_TILE_N, GATES_TILE_K = 128, 16
 # the wide kernels' blocks hold H threads, one per unit: at most 288 (a
 # second instance past WIDE_SMALL_THREADS, built where a route takes 257-288
-# units in the dtype: the recurrence op's in both, the CUDA-core forward's
-# in f32, the CUDA-core lite sweep's in neither); the recurrence op's
-# widest H on the card (its tensor-core kernels past 288)
+# units: the recurrence op's cluster kernels, in both dtypes; the CUDA-core
+# wide forward and lite sweep stop at WIDE_SMALL_THREADS); the recurrence
+# op's widest H on the card (its tensor-core kernels past 288); the wide
+# route's input parts are multiples of WIDE_PART_STEP wide
 WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
-WIDE_SMALL_THREADS = 256
+WIDE_SMALL_THREADS, WIDE_PART_STEP = 256, 16
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
@@ -233,8 +237,11 @@ BWD_F32_ONESTAGE_MAX_THREADS, BWD_F32_ONESTAGE_MAX_H = 320, 80
 FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128))
 FWD_MMA_MAX_CHUNKS = 2
 # the f32 tensor-core forward: x chunks a thread copies per step (its row
-# stride is the f32 sweep's), and the row tiles it takes: one or two n8 tiles
+# stride is the f32 sweep's), the row tiles it takes (one or two n8 tiles),
+# its widest H and its threads there (the instances at H = 80 take 320, in
+# 8-row tiles, the ones up to 64 at most MAX_THREADS)
 FWD_F32_MAX_CHUNKS, FWD_F32_ROWS = 2, (8, 16)
+FWD_F32_MAX_H, FWD_F32_MAX_THREADS = 80, 320
 # the tensor-core wgrad: block tile (gate rows x source columns), rows per
 # K-tile, cp.async stages, and its dynamic shared memory
 WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K, WGRAD_MMA_STAGES = 128, 128, 32, 4
@@ -292,6 +299,11 @@ REC_WIDE_F32_FWD_ROWS = {1: (32, 48), 2: (16,)}
 # instantiated for (its threads are the bf16 one's, its padding the op
 # sweep's)
 LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 256, 288), (16, 32)
+# the f32 tensor-core lite sweep with W_hh resident in one block
+# (bilstm_bwd_lite_f32_resident.cu, three tf32 passes, 8-row tiles, one warp
+# per 8 units): the width it is built for (the f32 weights of 96 units fit a
+# block; 112 do not)
+LITE_F32_RESIDENT_WIDTHS = (96,)
 # the f32 tensor-core input gates (three tf32 passes): the bf16 one's
 # block tile, input columns a stage (64 bytes of a row), cp.async stages,
 # and its dynamic shared memory (f32 rows padded by 4)
@@ -332,7 +344,6 @@ _SIGNATURES = {
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
-    "bilstm_gates": ("bilstm_gates", [_I] + [_P] * 2 + [_I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
                         + [_I] * 6 + [_P, _P]),
@@ -360,6 +371,8 @@ _SIGNATURES = {
                             + [_I] * 6 + [_P, _P]),
     "bilstm_gates_f32": ("bilstm_gates_f32", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_fwd_wide_f32": ("bilstm_fwd_wide_f32", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
+    "bilstm_bwd_lite_f32_resident": ("bilstm_bwd_lite_f32_resident",
+                                     [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -396,11 +409,9 @@ _CONSTANTS = {
                           "bilstm_wgrad_mma_smem"),
                          (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
                           WGRAD_MMA_STAGES, WGRAD_MMA_SMEM)),
-    "bilstm_gates": (("bilstm_gates_tile_n", "bilstm_gates_tile_k"),
-                     (GATES_TILE_N, GATES_TILE_K)),
     "bilstm_fwd_wide": (("bilstm_fwd_wide_cluster", "bilstm_fwd_wide_max_threads",
                          "bilstm_fwd_wide_rows_mask"),
-                        (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK)),
+                        (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK)),
     "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
                          "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
                         (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
@@ -438,7 +449,7 @@ _CONSTANTS = {
     "bilstm_fwd_f32": (("bilstm_fwd_f32_tile", "bilstm_fwd_f32_max_chunks",
                         "bilstm_fwd_f32_max_threads", "bilstm_fwd_f32_max_h",
                         "bilstm_fwd_f32_stride_align", "bilstm_fwd_f32_stride_pad"),
-                       (MMA_TILE, FWD_F32_MAX_CHUNKS, MAX_THREADS, MMA_MAX_H,
+                       (MMA_TILE, FWD_F32_MAX_CHUNKS, FWD_F32_MAX_THREADS, FWD_F32_MAX_H,
                         BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
     "lstm_recurrence_bwd_f32": (("lstm_recurrence_bwd_f32_tile",
                                  "lstm_recurrence_bwd_f32_stages",
@@ -484,6 +495,10 @@ _CONSTANTS = {
              for i, h in enumerate(FWD_WIDE_F32_WIDTHS)),
          sum(sum(1 << (r // 8) for r in rows) << (8 * i)
              for i, rows in enumerate((FWD_WIDE_F32_ROWS, FWD_WIDE_F32_UNEVEN_ROWS))))),
+    "bilstm_bwd_lite_f32_resident": (tuple(f"bilstm_bwd_lite_f32_resident_{c}" for c in (
+        "tile", "max_h", "max_threads", "stride_align", "stride_pad")),
+        (MMA_TILE, max(LITE_F32_RESIDENT_WIDTHS), 4 * max(LITE_F32_RESIDENT_WIDTHS),
+         BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -743,17 +758,19 @@ def fwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
     """``(threads, smem_bytes)`` of the f32 tensor-core forward
     (``csrc/bilstm_fwd_f32.cu``) with row tiles of ``rows`` (8 or 16), or
     ValueError for a dtype or shape it does not take. It takes float32 with
-    H in {16, 32, 48, 64} and 1 or 2 input parts that are multiples of 8
-    wide, where the f32 weights fit one block beside two [x ; h] stages:
-    one warp per 8 hidden units; shared memory for the weights (4H rows of
-    E + H, stride rounded to 32 floats plus 8) and the two stages; a step's
-    x chunks within the kernel's per-thread constant."""
+    H in {16, 32, 48, 64, 80} (``FWD_F32_MAX_H``) and 1 or 2 input parts
+    that are multiples of 8 wide, where the f32 weights fit one block beside
+    two [x ; h] stages: one warp per 8 hidden units; shared memory for the
+    weights (4H rows of E + H, stride rounded to 32 floats plus 8) and the
+    two stages; a step's x chunks within the kernel's per-thread constant.
+    At H = 80 only 8-row tiles fit (E = H = 80: 225,792 bytes; 16 rows
+    236,544)."""
     E = sum(E_parts)
-    if (dtype != torch.float32 or H % 16 or not 16 <= H <= MMA_MAX_H
+    if (dtype != torch.float32 or H % 16 or not 16 <= H <= FWD_F32_MAX_H
             or len(E_parts) not in (1, 2) or any(e <= 0 or e % 8 for e in E_parts)
             or rows not in FWD_F32_ROWS):
         raise ValueError(
-            f"bilstm_fwd_f32 kernel takes float32 with H in {{16, 32, 48, {MMA_MAX_H}}}, 1 or 2 "
+            f"bilstm_fwd_f32 kernel takes float32 with H % 16 == 0 up to {FWD_F32_MAX_H}, 1 or 2 "
             f"input parts that are positive multiples of 8 and row tiles of {FWD_F32_ROWS}, got "
             f"{dtype}, H={H}, E_parts={list(E_parts)}, rows={rows}")
     threads = 4 * H
@@ -788,9 +805,9 @@ def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's forward (both variants) takes for a
     layer, by shape and dtype alone, the first whose plan fits:
     ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16, H <= 64),
-    ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H <= 64), ``"bilstm_fwd"``
-    (``launch_plan``: the CUDA cores, f32 past H = 64 and the bf16 shapes
-    the tensor-core forward does not take); ValueError naming the three
+    ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H <= 80), ``"bilstm_fwd"``
+    (``launch_plan``: the CUDA cores, the shapes the tensor-core forwards do
+    not take, such as bf16 at H = 80); ValueError naming the three
     refusals otherwise. A tensor-core plan takes a shape whether or not the
     CUDA-core one does."""
     return _first_fitting(
@@ -913,10 +930,10 @@ def wide_check(H: int, E_parts: Optional[Sequence[int]] = None) -> None:
             f"bilstm wide kernels need H % 32 == 0 and 32 <= H <= {WIDE_MAX_THREADS}, got H={H}")
     if E_parts is None:
         return
-    if len(E_parts) not in (1, 2) or any(e <= 0 or e % GATES_TILE_K for e in E_parts):
+    if len(E_parts) not in (1, 2) or any(e <= 0 or e % WIDE_PART_STEP for e in E_parts):
         raise ValueError(
             f"bilstm wide kernels take 1 or 2 input parts, each a positive multiple of "
-            f"{GATES_TILE_K} wide, got {list(E_parts)}")
+            f"{WIDE_PART_STEP} wide, got {list(E_parts)}")
 
 
 def _route_at(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
@@ -1026,7 +1043,7 @@ def gates_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     alone, at every shape ``wide_check`` admits: ``"bilstm_gates_mma"`` for
     bfloat16, ``"bilstm_gates_f32"`` for float32 (both on the tensor cores,
     the latter in three tf32 passes); ValueError for a dtype or shape
-    neither takes. (``csrc/bilstm_gates.cu`` is reached by name only.)"""
+    neither takes."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"bilstm gates kernels take float32 or bfloat16, got {dtype}")
     wide_check(H, E_parts)
@@ -1056,16 +1073,39 @@ def lite_f32_check(H: int, dtype: torch.dtype) -> None:
             f"got {dtype}, H={H}")
 
 
+def lite_f32_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the f32 tensor-core lite sweep with
+    ``W_hh`` resident in one block (``csrc/bilstm_bwd_lite_f32_resident.cu``,
+    three tf32 passes), or ValueError for a dtype or width it does not take:
+    it takes float32 at H in ``LITE_F32_RESIDENT_WIDTHS`` (96). One warp per
+    8 hidden units; shared memory for the weights (4H rows of H, stride
+    rounded to 32 floats plus 8), the dgates tile, two h_prev stages (8 rows
+    each) and the exchange of the dh product's warp pairs."""
+    if dtype != torch.float32 or H not in LITE_F32_RESIDENT_WIDTHS:
+        raise ValueError(
+            f"bilstm_bwd_lite_f32_resident kernel takes float32 with H in "
+            f"{list(LITE_F32_RESIDENT_WIDTHS)}, got {dtype}, H={H}")
+    ks = -(-H // BWD_F32_STRIDE_ALIGN) * BWD_F32_STRIDE_ALIGN + BWD_F32_STRIDE_PAD
+    smem = (4 * H * ks + MMA_TILE * (4 * H + 4) + 2 * MMA_TILE * ks + H // 8 * 64) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bilstm_bwd_lite_f32_resident kernel: H={H} needs {smem} bytes of "
+                         f"shared memory (at most {SMEM_LIMIT})")
+    return 4 * H, smem
+
+
 def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
     ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
     256 or 288), ``"bilstm_bwd_lite_f32"`` where ``lite_f32_check`` passes
-    (f32 at those widths), else ``"bilstm_bwd_lite"`` where ``wide_check``
-    passes (the widths the tensor-core sweeps do not take: 96, 160, 192,
-    224 in either dtype); ValueError naming the refusals otherwise."""
+    (f32 at those widths), ``"bilstm_bwd_lite_f32_resident"`` where
+    ``lite_f32_resident_plan`` takes it (f32 at 96), else
+    ``"bilstm_bwd_lite"`` where ``wide_check`` passes (the widths the
+    tensor-core sweeps do not take: 96 in bf16, 160, 192, 224 in either
+    dtype); ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
-                        ("bilstm_bwd_lite_f32", lite_f32_check)):
+                        ("bilstm_bwd_lite_f32", lite_f32_check),
+                        ("bilstm_bwd_lite_f32_resident", lite_f32_resident_plan)):
         try:
             check(H, dtype)
             return name
@@ -2037,27 +2077,11 @@ def bilstm_wgrad_f32(
 bilstm_wgrad_f32.launches = 0
 
 
-def _gates_operands(x_parts, w_ih, bias, cd):
-    """Checked operands of an input-gate kernel: ``(dev, T, B, H, E_parts)``."""
-    _no_graph(*x_parts, w_ih, bias)
-    dev = x_parts[0].device
-    T, B = x_parts[0].shape[:2]
-    H = w_ih.shape[1] // 4
-    E_parts = [p.shape[-1] for p in x_parts]
-    wide_check(H, E_parts)
-    for k, p in enumerate(x_parts):
-        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
-    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
-    _check("bias", bias, (2, 4 * H), torch.float32, dev)
-    return dev, T, B, H, E_parts
-
-
 def bilstm_gates(
     x_parts: Sequence[torch.Tensor],
     w_ih: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
-    kernel: Optional[str] = None,
 ) -> torch.Tensor:
     """The input projection of one layer; the contract of
     ``ops/lstm.py:input_gates``: ``xg (2, T, B, 4H)`` f32 from 1 or 2
@@ -2066,38 +2090,13 @@ def bilstm_gates(
 
     On the card the product runs on the kernel ``gates_kernel`` names: a
     tensor-core one through :func:`bilstm_gates_mma` (bf16) or
-    :func:`bilstm_gates_f32` (f32; their ``.launches`` then count them).
-    ``kernel="bilstm_gates"`` asks for ``csrc/bilstm_gates.cu`` (CUDA cores)
-    by name, launched here (to time it beside the others)."""
+    :func:`bilstm_gates_f32` (f32), whose ``.launches`` then counts it."""
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return input_gates(x_parts, w_ih, bias, compute_dtype)
-    tensor_core = {"bilstm_gates_mma": bilstm_gates_mma, "bilstm_gates_f32": bilstm_gates_f32}
-    if kernel not in (None, "bilstm_gates", *tensor_core):
-        raise ValueError(f"bilstm_gates: no input-gate kernel named {kernel!r}")
-    cd = compute_dtype
-    name = kernel or gates_kernel([p.shape[-1] for p in x_parts], w_ih.shape[1] // 4, cd)
-    if name in tensor_core:
-        return tensor_core[name](x_parts, w_ih, bias, cd)
-    if cd not in _DTYPE_CODES:
-        raise ValueError(f"bilstm_gates kernel takes float32 or bfloat16, got {cd}")
-    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
-    xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
-    if T * B == 0:
-        return xg
-    x1 = x_parts[1] if len(x_parts) == 2 else None
-    with torch.cuda.device(dev):
-        err = _kernels("bilstm_gates").bilstm_gates(
-            _DTYPE_CODES[cd], x_parts[0].data_ptr(), x1.data_ptr() if x1 is not None else None,
-            E_parts[0], E_parts[1] if x1 is not None else 0, w_ih.data_ptr(), bias.data_ptr(),
-            xg.data_ptr(), T, B, H, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error("bilstm_gates", err)
-    bilstm_gates.launches += 1
-    return xg
-
-
-bilstm_gates.launches = 0
+    name = gates_kernel([p.shape[-1] for p in x_parts], w_ih.shape[1] // 4, compute_dtype)
+    wrapper = bilstm_gates_mma if name == "bilstm_gates_mma" else bilstm_gates_f32
+    return wrapper(x_parts, w_ih, bias, compute_dtype)
 
 
 def _gates_tensor_core(wrapper, dtype, x_parts, w_ih, bias, cd):
@@ -2112,7 +2111,15 @@ def _gates_tensor_core(wrapper, dtype, x_parts, w_ih, bias, cd):
         raise ValueError(f"{name} kernel takes {dtype}, got {cd}")
     if not x_parts[0].is_cuda:
         return input_gates(x_parts, w_ih, bias, cd)
-    dev, T, B, H, E_parts = _gates_operands(x_parts, w_ih, bias, cd)
+    dev = x_parts[0].device
+    T, B = x_parts[0].shape[:2]
+    H = w_ih.shape[1] // 4
+    E_parts = [p.shape[-1] for p in x_parts]
+    wide_check(H, E_parts)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
+    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), cd, dev)
+    _check("bias", bias, (2, 4 * H), torch.float32, dev)
     xg = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if T * B == 0:
         return xg
@@ -2227,9 +2234,11 @@ def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
     name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
     if name in tensor_core:
         return tensor_core[name](xg, lengths, w_hh, cd)
-    if cd == torch.bfloat16 and xg.shape[-1] // 4 > WIDE_SMALL_THREADS:
-        raise ValueError(f"bilstm_fwd_wide: csrc/bilstm_fwd_wide.cu takes bfloat16 up to "
-                         f"H = {WIDE_SMALL_THREADS}, got H={xg.shape[-1] // 4}")
+    H = xg.shape[-1] // 4
+    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in FWD_WIDE_F32_WIDTHS):
+        raise ValueError(f"bilstm_fwd_wide: csrc/bilstm_fwd_wide.cu takes H <= "
+                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(FWD_WIDE_F32_WIDTHS)}, "
+                         f"got {cd}, H={H}")
     _no_graph(xg, w_hh)
     return _fwd_wide_launch(wrapper, "bilstm_fwd_wide", xg, lengths, w_hh, cd, with_states)
 
@@ -2254,8 +2263,9 @@ def bilstm_fwd_wide(
     its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
     (bf16 at H = 128, 256 and 288) or :func:`bilstm_fwd_wide_f32` (f32 there;
     their ``.launches`` then count them), or ``csrc/bilstm_fwd_wide.cu``
-    here. ``kernel="bilstm_fwd_wide"`` asks for the latter by name (to time
-    it beside the others; bf16 up to 256 units).
+    here. ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16
+    at 128 and 256 (to time it beside the others); it takes no width past
+    256 and no f32 width of the f32 tensor-core forward.
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
@@ -2408,18 +2418,20 @@ def bilstm_bwd_lite(
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
     width and dtype: a tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128, 256 and 288) or :func:`bilstm_bwd_lite_f32` (f32
-    there; their ``.launches`` then count them), or
-    ``csrc/bilstm_bwd_lite.cu`` here. ``kernel="bilstm_bwd_lite"`` asks for
-    the latter by name in bf16 at 128 and 256 (to time it beside the
-    others); it takes no width past 256 and no f32 width of the f32 sweep."""
+    (bf16 at H = 128, 256 and 288), :func:`bilstm_bwd_lite_f32` (f32 there)
+    or :func:`bilstm_bwd_lite_f32_resident` (f32 at 96; their ``.launches``
+    then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
+    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128
+    and 256 and in f32 at 96 (to time it beside the others); it takes no
+    width past 256 and no f32 width of the cluster f32 sweep."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
     tensor_core = {"bilstm_bwd_lite_mma": bilstm_bwd_lite_mma,
-                   "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32}
+                   "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32,
+                   "bilstm_bwd_lite_f32_resident": bilstm_bwd_lite_f32_resident}
     if kernel not in (None, "bilstm_bwd_lite", *tensor_core):
         raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
     kernel = kernel or lite_kernel(xg.shape[-1] // 4, cd)
@@ -2521,6 +2533,57 @@ def bilstm_bwd_lite_f32(
 
 
 bilstm_bwd_lite_f32.launches = 0
+
+
+def bilstm_bwd_lite_f32_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """One layer's backward sweep over its input gates in f32 on the tensor
+    cores, three tf32 passes a product, one block a row tile with ``W_hh``
+    resident in its shared memory (``csrc/bilstm_bwd_lite_f32_resident.cu``);
+    the contract of :func:`bilstm_bwd_lite`. Takes the widths
+    ``lite_f32_resident_plan`` takes (float32, H = 96) and raises for the
+    rest. Row tiles of 8 are cut inside each weight group, so nothing is
+    padded. Its output carries no graph, so under grad mode it refuses an
+    operand that requires grad, on the CPU too."""
+    dyf, dyb = tuple(dyf), tuple(dyb)
+    _no_graph(xg, w_hh, hs_f, hs_b, cs_f, cs_b, *dyf, *dyb)
+    cd = compute_dtype
+    if not xg.is_cuda:
+        return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
+                                      dhn, dcn, cd)
+    name = "bilstm_bwd_lite_f32_resident"
+    threads, smem = lite_f32_resident_plan(xg.shape[-1] // 4, cd)
+    dev, T, B, H, G, w_hh = _lite_operands(name, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,
+                                           dyf, dyb, dhn, dcn, cd)
+    dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return dgates
+    with torch.cuda.device(dev):
+        err = _kernels(name).bilstm_bwd_lite_f32_resident(
+            xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
+            hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
+            _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
+            _opt_ptr(dhn), _opt_ptr(dcn), dgates.data_ptr(), T, B, H, G, mma_tiles(B, G),
+            threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    bilstm_bwd_lite_f32_resident.launches += 1
+    return dgates
+
+
+bilstm_bwd_lite_f32_resident.launches = 0
 
 
 def _lite_tensor_core(wrapper, check, plan, weights, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,

@@ -54,7 +54,7 @@ def test_every_kernel_source_is_built_and_bound():
     from intrepppid_tpu_torch.ops import _build, lstm_cuda
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "bilstm_gates",
+    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad",
                        "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
@@ -63,7 +63,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_fwd_wide_mma", "bilstm_wgrad_f32", "bilstm_bwd_f32_onestage",
                        "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
-                       "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32"}
+                       "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
+                       "bilstm_bwd_lite_f32_resident"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -85,6 +86,7 @@ def test_every_kernel_source_is_built_and_bound():
                       ("bilstm_gates_mma", "mma_bf16("), ("bilstm_gates_f32", "mma_tf32("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
                       ("bilstm_bwd_f32_onestage", "mma_tf32("),
+                      ("bilstm_bwd_lite_f32_resident", "mma_tf32("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
         text = kernel_source(name)
         assert '#include "bilstm_mma.cuh"' in text and mma in text
@@ -151,10 +153,10 @@ def test_every_kernel_source_is_built_and_bound():
     assert "gate_mma_f32<" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, and 288 where a route takes 257-288 units in the dtype:
-    # the recurrence op in both, the wide forward in f32, the lite sweep in
+    # the recurrence op in both, the wide forward and the lite sweep in
     # neither); none reads its weight slice from a global copy
     for name, dispatch in (
-            ("bilstm_fwd_wide", "dispatch_wide<kWideMaxThreads, kWideSmallThreads>("),
+            ("bilstm_fwd_wide", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
             ("bilstm_bwd_lite", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
             ("lstm_recurrence_fwd", "dispatch_wide("), ("lstm_recurrence_bwd", "dispatch_wide(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
@@ -166,8 +168,10 @@ def test_every_kernel_source_is_built_and_bound():
     # small weights in the m16 tile's rows 8-15 (two mma, four terms); the
     # weight gradient splits each fragment once after loading it (two B
     # fragments, the four A fragments in a loop) and runs its three passes;
-    # the one-stage sweep shares the f32 sweep's kernel
+    # the one-stage sweep shares the f32 sweep's kernel; the lite sweep with
+    # W_hh resident splits both operands of both of its products
     for name, mma, split in (("bilstm_bwd_f32", 6, 12), ("bilstm_bwd_f32_onestage", 6, 12),
+                             ("bilstm_bwd_lite_f32_resident", 6, 12),
                              ("bilstm_fwd_f32", 3, 6),
                              ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3),
                              ("bilstm_gates_f32", 3, 1)):

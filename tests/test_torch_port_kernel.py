@@ -189,7 +189,7 @@ def test_train_wrappers_take_plain_versions_on_cpu():
 def test_wide_wrappers_take_plain_versions_on_cpu():
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
-    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
     counts = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, torch.float32)
@@ -525,11 +525,10 @@ def test_bwd_mma_plan_at_80():
     for E_parts, H in (([48], 80), ([16], 80), ([112], 80), ([96], 96), ([80], 96), ([72], 72)):
         with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
             lstm_cuda.bwd_mma_plan(E_parts, H, torch.bfloat16)
-    # the f32 plans keep their cap
+    # the f32 sweep keeps its cap; the f32 forward has a cap of its own (80)
     with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
         lstm_cuda.bwd_f32_plan([80], 80, torch.float32)
-    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
-        lstm_cuda.fwd_f32_plan([80], 80, torch.float32)
+    assert lstm_cuda.fwd_f32_plan([80], 80, torch.float32) == (320, 225792)
     for dtype in (torch.float32, torch.bfloat16):
         assert lstm_cuda.padded_width([48], 80, dtype) == 80
     assert lstm_cuda.padded_parts([48], 80, torch.bfloat16) == (80,)
@@ -944,7 +943,9 @@ def test_lite_mma_uneven_plan_at_256():
         ([32, 32], 32, torch.float32, "bilstm_fwd_f32"),
         ([48], 48, torch.float32, "bilstm_fwd_f32"),
         ([16, 16], 16, torch.float32, "bilstm_fwd_f32"),
-        ([80], 80, torch.float32, "bilstm_fwd"),       # f32 past H = 64: the CUDA-core forward
+        ([80], 80, torch.float32, "bilstm_fwd_f32"),   # f32 at H = 80: its 320-thread instance
+        ([40, 40], 80, torch.float32, "bilstm_fwd_f32"),
+        ([80], 80, torch.bfloat16, "bilstm_fwd"),      # bf16 at H = 80: the CUDA-core forward
         ([128, 128], 128, torch.float32, None),        # too wide for any
         ([32], 64, torch.bfloat16, "bilstm_fwd"),      # (H, E) not instantiated
         ([60], 64, torch.bfloat16, None),               # parts not multiples of 8
@@ -1256,7 +1257,8 @@ def test_f32_sweep_and_recurrence_wgrad_wrappers_take_plain_versions_on_cpu():
 @pytest.mark.parametrize("E_parts,H,rows,smem", [
     ([64], 64, 8, 147968), ([64, 64], 64, 8, 217600), ([64, 64], 64, 16, 230400),
     ([64], 64, 16, 156672), ([32], 32, 8, 41472), ([32, 32], 32, 16, 66560),
-    ([16], 16, 16, 15360), ([48], 48, 8, 86528)])
+    ([16], 16, 16, 15360), ([48], 48, 8, 86528), ([80], 80, 8, 225792),
+    ([40, 40], 80, 8, 225792), ([16], 80, 8, 139776)])
 def test_fwd_f32_plan(E_parts, H, rows, smem):
     """One warp per 8 hidden units; shared memory for the f32 weights (4H
     rows of E + H, stride rounded to 32 floats plus 8) and two [x ; h]
@@ -1267,14 +1269,14 @@ def test_fwd_f32_plan(E_parts, H, rows, smem):
     E = sum(E_parts)
     ks = -(-(E + H) // 32) * 32 + 8
     assert (threads, got) == (4 * H, smem) == (4 * H, (4 * H + 2 * rows) * ks * 4)
-    assert smem <= lstm_cuda.SMEM_LIMIT and threads <= lstm_cuda.MAX_THREADS
+    assert smem <= lstm_cuda.SMEM_LIMIT and threads <= lstm_cuda.FWD_F32_MAX_THREADS
     assert rows * E // 4 <= lstm_cuda.FWD_F32_MAX_CHUNKS * threads
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.fwd_f32_plan(E_parts, H, torch.bfloat16, rows)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.fwd_f32_plan(E_parts, H, torch.float32, 32)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
-        lstm_cuda.fwd_f32_plan([40], 80, torch.float32, rows)
+        lstm_cuda.fwd_f32_plan([48], 96, torch.float32, rows)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.fwd_f32_plan([8, 8, 8], 16, torch.float32, rows)
     # 16-row tiles of x past 2H wide would need more chunks a thread
@@ -1419,7 +1421,9 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (128, torch.bfloat16, "bilstm_bwd_lite_mma"),
         (256, torch.float32, "bilstm_bwd_lite_f32"),  # three tf32 passes
         (128, torch.float32, "bilstm_bwd_lite_f32"),
-        (96, torch.float32, "bilstm_bwd_lite"),    # f32 keeps the CUDA-core sweep here
+        (96, torch.float32, "bilstm_bwd_lite_f32_resident"),  # W_hh resident in one block
+        (160, torch.float32, "bilstm_bwd_lite"),   # f32 keeps the CUDA-core sweep here
+        (224, torch.float32, "bilstm_bwd_lite"),
         (192, torch.float32, "bilstm_bwd_lite"),
         (192, torch.bfloat16, "bilstm_bwd_lite"),  # m16 tiles not even over 8 warps
         (96, torch.bfloat16, "bilstm_bwd_lite"),   # no whole 8-unit groups a block
@@ -1479,7 +1483,8 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             gates, lite = lstm_cuda.gates_kernel(Ep, H, dtype), lstm_cuda.lite_kernel(H, dtype)
             bf16 = dtype == torch.bfloat16
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates_f32")
-            assert lite == ("bilstm_bwd_lite" if H not in (128, 256, 288)
+            assert lite == ("bilstm_bwd_lite_f32_resident" if (H, bf16) == (96, False)
+                            else "bilstm_bwd_lite" if H not in (128, 256, 288)
                             else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
@@ -1516,12 +1521,12 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [128], 128, 2, cd, torch.device("cpu"))
-    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite,
+    wrappers = (lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite,
                 lstm_cuda.bilstm_bwd_lite_mma)
     before = [f.launches for f in wrappers]
     want = input_gates(parts, w_ih, bias, cd)
     for got in (lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd),
-                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")):
+                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd)):
         assert torch.equal(got, want)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(want, lengths, w_hh, cd, with_states=True)
     args = (want, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
@@ -1834,18 +1839,18 @@ def test_fwd_wide_f32_smem_and_plan(H):
 def test_f32_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     """On the CPU the f32 tensor-core gates and wide forward (both variants)
     run their plain twins bit for bit and launch
-    nothing; the dispatch and the CUDA-core kernels by name do the same.
-    They refuse bf16 and, under grad mode, operands that require grad."""
+    nothing; so does the dispatch, and so does the CUDA-core forward named
+    where it runs on the CPU. They refuse bf16 and, under grad mode,
+    operands that require grad."""
     cpu, cd = torch.device("cpu"), torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [16, 32], 288, 5, cd, cpu)
-    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_f32,
                 lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     want_xg = input_gates(parts, w_ih, bias, cd)
     for got in (lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd),
-                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd),
-                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")):
+                lstm_cuda.bilstm_gates(parts, w_ih, bias, cd)):
         assert torch.equal(got, want_xg)
     xg = want_xg
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
@@ -1874,6 +1879,81 @@ def test_f32_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     with torch.no_grad():
         lstm_cuda.bilstm_gates_f32(parts, w_ih.clone().requires_grad_(), bias, cd)
         lstm_cuda.bilstm_fwd_wide_f32(xg.clone().requires_grad_(), lengths, w_hh, cd)
+
+
+# ---- the f32 forward at H = 80 and the one-block f32 lite sweep at H = 96
+def test_f32_forward_takes_80_in_8_row_tiles():
+    """Layer 0 of the model at embedding 80 in f32 (E = H = 80) takes the f32
+    tensor-core forward in its 320-thread instances: 8-row tiles only (the
+    weights, 320 rows of stride 168, and two 8-row stages take 225,792
+    bytes; 16 rows would take 236,544), at every batch; at the train step's
+    400 rows in 5 groups 100 blocks. bf16 keeps the CUDA-core forward there,
+    the f32 sweep its one-stage kernel, and E past 80 at H = 80 does not
+    fit."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert lstm_cuda.fwd_kernel([80], 80, f32) == "bilstm_fwd_f32"
+    assert lstm_cuda.fwd_f32_plan([80], 80, f32, 8) == (320, (320 + 16) * 168 * 4) == (
+        320, 225792)
+    with pytest.raises(ValueError, match="236544 bytes of shared memory"):
+        lstm_cuda.fwd_f32_plan([80], 80, f32, 16)
+    for B, G in ((400, 5), (800, 1), (27, 3)):
+        assert lstm_cuda.fwd_f32_rows([80], 80, B, G, 132) == 8
+    assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
+    assert lstm_cuda.FWD_F32_MAX_H == 80 and lstm_cuda.FWD_F32_MAX_THREADS == 4 * 80
+    assert lstm_cuda.fwd_kernel([80], 80, bf16) == "bilstm_fwd"
+    assert lstm_cuda.sweep_kernel([80], 80, f32) == "bilstm_bwd_f32_onestage"
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+        lstm_cuda.fwd_f32_plan([80], 96, f32)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        lstm_cuda.fwd_f32_plan([88], 80, f32)
+
+
+def test_lite_f32_resident_plan_and_dispatch():
+    """The f32 lite sweep at H = 96 (the stacked layer of the model at
+    embedding 80, run at 96) takes the one-block sweep with W_hh resident:
+    12 warps; shared memory for the f32 weights (384 rows of stride 104),
+    the dgates tile (8 rows of 388), two h_prev stages and the warp pairs'
+    exchange: 181,888 bytes, one block an SM; 8-row tiles make 100 blocks at
+    400 rows in one group. At 112 the weights alone would not fit. f32 at
+    160, 192 and 224 keeps the CUDA-core sweep, and so does bf16 at 96."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert lstm_cuda.lite_kernel(96, f32) == "bilstm_bwd_lite_f32_resident"
+    threads, smem = lstm_cuda.lite_f32_resident_plan(96, f32)
+    assert threads == 384
+    assert smem == (384 * 104 + 8 * 388 + 2 * 8 * 104 + 12 * 64) * 4 == 181888
+    assert smem <= lstm_cuda.SMEM_LIMIT < 2 * smem
+    assert 4 * 112 * (128 + 8) * 4 > lstm_cuda.SMEM_LIMIT
+    assert 2 * lstm_cuda.mma_tiles(400, 1) == 100
+    for H in (160, 192, 224):
+        assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite"
+    assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite"
+    for H, dtype in ((96, bf16), (128, f32), (160, f32), (64, f32)):
+        with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
+            lstm_cuda.lite_f32_resident_plan(H, dtype)
+    assert lstm_cuda.layer_route([80, 80], 80, f32) == "wide"
+    assert lstm_cuda.padded_width([80, 80], 80, f32) == 96
+
+
+@pytest.mark.parametrize("ny", [0, 1, 2])
+def test_lite_f32_resident_wrapper_takes_plain_version_on_cpu(ny):
+    """On the CPU the one-block f32 lite sweep and the dispatch at H = 96
+    run the plain twin bit for bit and launch nothing; under grad mode the
+    wrapper refuses an operand that requires grad."""
+    cpu, cd, H = torch.device("cpu"), torch.float32, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(5, 6, [32, 32], H, 1, cd, cpu)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    want = bidir_layer_sweep_lite(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32_resident(*args), want)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args), want)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_lite_f32_resident(xg.clone().requires_grad_(), *args[1:])
+    with torch.no_grad():
+        lstm_cuda.bilstm_bwd_lite_f32_resident(xg.clone().requires_grad_(), *args[1:])
 
 
 # ------------------------------------------------------------ on the card
@@ -1982,8 +2062,9 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     leave short row tiles inside each group. The gates are the tensor-core
     kernels (in f32 three tf32 passes), and at H = 128 and 256 the forward
     and the sweep are too, counted on their own wrappers; the CUDA-core
-    gates and forward are held by name too (the lite sweep in bf16); in f32
-    wgrad is the 3xTF32 kernel at every width here."""
+    forward and lite sweep are held by name too in bf16 (in f32 at 128 and
+    256 both refuse by name); in f32 wgrad is the 3xTF32 kernel at every
+    width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -1995,7 +2076,7 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
             assert float((a.float() - b.float()).abs().max()) <= tol * max(
                 1.0, float(b.float().abs().max()))
 
-    wrappers = (lstm_cuda.bilstm_gates, lstm_cuda.bilstm_fwd_wide,
+    wrappers = (lstm_cuda.bilstm_fwd_wide,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite,
                 lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
@@ -2018,18 +2099,19 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
     close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
     close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
-    if fwd_mma or fwd_f32:
+    if fwd_mma:
         close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
               ref)
         close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
               ref[:4])
+    if fwd_f32:
+        with pytest.raises(ValueError, match="and f32 outside"):
+            lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
     hs_f, hs_b, _, _, cs_f, cs_b = ref
     ny = 2 if len(E_parts) == 1 else 1
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
     close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
-    close([lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype, kernel="bilstm_gates")],
-          [input_gates(parts, w_ih, bias, dtype)])
     if lite_mma:
         close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [dgates])
     if lite_f32:
@@ -2041,9 +2123,9 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        1, 1, 1, int(not lite_f32), int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma),
-        0, int(bf16), int(not bf16), int(lite_f32), int(not gates_mma), int(fwd_f32),
-        int(fwd_f32)]
+        int(not fwd_f32), int(not fwd_f32), int(not lite_f32), int(gates_mma), int(lite_mma),
+        int(fwd_mma), int(fwd_mma), 0, int(bf16), int(not bf16), int(lite_f32),
+        int(not gates_mma), int(fwd_f32), int(fwd_f32)]
 
 
 @pytest.mark.cuda
@@ -2106,7 +2188,7 @@ def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
     assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
                 lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates,
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
                 lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, embedding_size=128)
@@ -2787,7 +2869,7 @@ def test_fwd_f32_matches_plain_on_card(cuda_device, monkeypatch, T, E_parts, H, 
 @pytest.mark.cuda
 def test_fwd_f32_edges_on_card(cuda_device):
     """An empty batch launches nothing; T = 0 gives zero final states; bf16
-    operands, H = 80 and an unknown kernel name raise in the f32 wrappers
+    operands, H = 96 and an unknown kernel name raise in the f32 wrappers
     (nothing falls back)."""
     cd = torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [64], 64, 2, cd, cuda_device)
@@ -2807,7 +2889,7 @@ def test_fwd_f32_edges_on_card(cuda_device):
     bf = layer_case(4, 10, [64], 64, 2, torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.bilstm_layer_fwd_f32(*bf[:5], torch.bfloat16)
-    wide = layer_case(4, 10, [40], 80, 2, cd, cuda_device)
+    wide = layer_case(4, 10, [48], 96, 2, cd, cuda_device)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.bilstm_layer_fwd_train_f32(*wide[:5], cd)
     with pytest.raises(ValueError, match="no forward kernel named"):
@@ -3045,19 +3127,24 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
-    """The default two-layer model at embedding 80: layer 0 resident (the
-    one-stage sweep in f32, the tensor-core sweep ``bilstm_bwd_mma.cu`` in
-    bf16, never ``bilstm_bwd.cu``), the stacked layer padded to 96 on the
-    wide route; its gradients equal the CPU plain path's (1e-4 x max(1,
-    max|grad|) in f32, 2^-7 in bf16)."""
+    """The default two-layer model at embedding 80: layer 0 resident (in f32
+    the tensor-core forward ``bilstm_fwd_f32.cu`` and the one-stage sweep,
+    in bf16 the CUDA-core forward and the tensor-core sweep
+    ``bilstm_bwd_mma.cu``, never ``bilstm_bwd.cu``), the stacked layer
+    padded to 96 on the wide route (its lite sweep in f32 the one-block
+    ``bilstm_bwd_lite_f32_resident.cu``, in bf16 ``bilstm_bwd_lite.cu``);
+    its gradients equal the CPU plain path's (1e-4 x max(1, max|grad|) in
+    f32, 2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
     wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd,
-                lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_bwd_lite_f32_resident,
+                lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(not f32), 0, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        int(f32), int(not f32), 0, int(not f32), int(f32), int(not f32), int(f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -3099,13 +3186,12 @@ def test_wgrad_mma_masked_gate_tile_matches_plain_on_card(cuda_device, E_parts, 
 @pytest.mark.parametrize("T", [24, 1])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
-    """The CUDA-core wide forward (both variants) at H = 288 (its 288-thread
-    instance) in f32 against its plain twin: 60 rows in 5 weight groups,
-    ragged lengths; the row tiles ``wide_plan`` picks; 1e-4 x max(1,
-    max|ref|). The dispatch names the tensor-core kernels there in both
-    dtypes (three tf32 passes in f32), so it is asked for by name; in bf16
-    it takes no width past 256 any more, and the CUDA-core lite sweep none
-    in either dtype: asked for by name, they refuse before any launch."""
+    """At H = 288 the dispatch names the tensor-core wide forward and lite
+    sweep in both dtypes (three tf32 passes in f32), which agree with their
+    plain twins (60 rows in 5 weight groups, ragged lengths; 1e-4 x max(1,
+    max|ref|) in f32, 3e-2 in bf16); the CUDA-core forward (whose 288-thread
+    instance is gone) and lite sweep take no width past 256 in either dtype:
+    asked for by name, they refuse before any launch."""
     H, G, B = 288, 5, 60
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, dtype,
@@ -3120,21 +3206,18 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
                 lstm_cuda.bilstm_bwd_lite)
     before = [f.launches for f in wrappers]
-    if f32:
-        _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype,
-                                               kernel="bilstm_fwd_wide"), want, tol)
-        _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
-               want[:4], tol)
-    else:
-        with pytest.raises(ValueError, match="takes bfloat16 up to H = 256"):
-            lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
+    for fwd in (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide):
+        with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256"):
+            fwd(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
     with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [int(f32), int(f32), 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 0]
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), want, tol)
+    _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
 
 
 @pytest.mark.cuda
@@ -3527,7 +3610,7 @@ def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, 
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    with pytest.raises(ValueError, match="takes bfloat16 up to H = 256"):
+    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1]
 
@@ -3892,21 +3975,20 @@ def test_gates_f32_matches_plain_on_card(cuda_device, H, E_parts, G, B, T):
     of H, 2H and 16), 400 rows in 5 groups (the train shape), 27 and 130
     rows (a ragged last row tile), T = 1; the same bits computed twice
     (the backward's recompute). The dispatch names it and its wrapper counts
-    the launches; ``bilstm_gates.cu`` by name agrees too."""
+    the launches."""
     cd = torch.float32
     E_parts = [e * H if e < 16 else e for e in E_parts]
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
                                                            seed=H + B)
     assert lstm_cuda.gates_kernel(E_parts, H, cd) == "bilstm_gates_f32"
-    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_gates)
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_gates_mma)
     before = [f.launches for f in wrappers]
     want = input_gates(parts, w_ih, bias, cd)
     got = lstm_cuda.bilstm_gates(parts, w_ih, bias, cd)
     _close([got], [want], 1e-4)
     assert torch.equal(lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd), got)
-    _close([lstm_cuda.bilstm_gates(parts, w_ih, bias, cd, kernel="bilstm_gates")], [want], 1e-4)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda
@@ -3920,7 +4002,7 @@ def test_fwd_wide_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T
     groups, groups of 27, 9, 70 and 12 rows (short tiles), lengths of 0, 1
     and T, T = 1. The eval and train variants give the same hs bits; the
     dispatch names it and its wrappers count the launches; the CUDA-core
-    forward by name agrees too."""
+    forward by name refuses these widths in f32."""
     cd = torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                            seed=B + T + H)
@@ -3945,10 +4027,10 @@ def test_fwd_wide_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T
         _close(e, want[:4], 1e-4)
         assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
     n = len(rows)
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
-           want, 1e-4)
+    with pytest.raises(ValueError, match="and f32 outside"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1 + n, 1 + n, 0, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1 + n, 1 + n, 0, 0]
 
 
 @pytest.mark.cuda
@@ -3999,7 +4081,7 @@ def test_two_layer_model_at_embedding_272_f32_on_card(cuda_device):
     max|grad|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates,
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=torch.float32, embedding_size=272)
@@ -4011,3 +4093,154 @@ def test_two_layer_model_at_embedding_272_f32_on_card(cuda_device):
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
             1.0, float(ref.abs().max())), name
+
+
+def _main_path_lengths(lengths, G, T):
+    """The main path's per-call lengths: every row of groups 0-2 at 0, 1
+    and T (where there are three groups), the rest as drawn."""
+    if G >= 3:
+        Bg = lengths.shape[0] // G
+        lengths[:3 * Bg] = torch.tensor([0, 1, T], dtype=lengths.dtype,
+                                        device=lengths.device).repeat_interleave(Bg)
+    return lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,G,B", [([80], 5, 30), ([80], 1, 13), ([40, 40], 3, 27),
+                                         ([16], 2, 22), ([72], 4, 20)])
+def test_fwd_f32_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B):
+    """The f32 tensor-core forward at H = 80 (its 320-thread instances: E =
+    80 unrolled, other widths read at run time) against its plain twin at
+    1e-4 x max(1, max|ref|), both variants: 1 and 2 input parts, groups of
+    5, 6, 9, 11 and 13 rows (short tiles inside each group), groups at
+    lengths 0, 1 and T, rows of length 0, 1 and T and rows 8-15 short of T;
+    the dispatch names it and its wrappers count the launches; the CUDA-core
+    forward by name agrees too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, H = torch.float32, 80
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=T + B + 80)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    assert lstm_cuda.fwd_kernel(E_parts, H, cd) == "bilstm_fwd_f32"
+    want = bidir_layer(*args, with_states=True)
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_f32, lstm_cuda.bilstm_layer_fwd_train_f32)
+    before = [f.launches for f in wrappers]
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args), want, 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 1e-4)
+    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_fwd_f32_at_80_at_the_main_path_shape_on_card(cuda_device):
+    """Layer 0 of the two-layer model at embedding 80: E = H = 80, 400 rows
+    in 5 groups, T = 1500, the main path's lengths (groups at 0, 1 and T,
+    the rest random), both variants against the plain twin at 1e-4; the
+    two variants give the same hs bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, G = torch.float32, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [80], 80, G, cd, cuda_device,
+                                                           seed=12)
+    lengths = _main_path_lengths(lengths, G, T)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    got = lstm_cuda.bilstm_layer_fwd_train_f32(*args)
+    ev = lstm_cuda.bilstm_layer_fwd_f32(*args)
+    _close(got, want, 1e-4)
+    _close(ev, want[:4], 1e-4)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B,ny,final", [(1, 30, 1, True), (1, 13, 0, False), (3, 27, 2, True),
+                                          (5, 60, 2, False), (2, 22, 1, True)])
+def test_lite_f32_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final):
+    """The one-block f32 lite sweep at H = 96 (three tf32 passes, W_hh
+    resident) against its plain twin at 1e-4 x max(1, max|ref|): 0, 1 and 2
+    dy streams, with and without final-state cotangents, groups of 30, 13,
+    9, 12 and 11 rows (short tiles inside each group), groups at lengths 0,
+    1 and T, rows of length 0, 1 and T and rows 8-15 short of T (a tile
+    that stops early). The dispatch names it and its wrapper counts the
+    launches; ``bilstm_bwd_lite.cu`` by name agrees too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, H = torch.float32, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                                seed=T + B + 96)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep_lite(*args)
+    assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32_resident"
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
+    _close([lstm_cuda.bilstm_bwd_lite_f32_resident(*args)], [want], 1e-4)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+def test_lite_f32_resident_at_the_main_path_shape_on_card(cuda_device):
+    """The stacked layer of the f32 model at embedding 80 at its run shape:
+    H = 96, input parts 80 + 80, 400 rows in one group, one dy stream a
+    direction, T = 1500, ragged lengths; the same bits twice (the pair
+    exchange sums in a fixed order), and the plain twin at 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, H = torch.float32, 1500, 400, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [80, 80], H, 1, cd,
+                                                                cuda_device, seed=13)
+    xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
+    del parts
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:1], dy[2:3], dhn, dcn, cd)
+    got = lstm_cuda.bilstm_bwd_lite_f32_resident(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32_resident(*args), got)
+    _close([got], [bidir_layer_sweep_lite(*args)], 1e-4)
+
+
+@pytest.mark.cuda
+def test_lite_f32_resident_edges_on_card(cuda_device):
+    """An empty batch launches nothing and T = 0 gives an empty output;
+    bf16 operands and H = 128 raise in the one-block wrapper (nothing falls
+    back)."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [96], 96, 2, cd,
+                                                                cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    before = lstm_cuda.bilstm_bwd_lite_f32_resident.launches
+    empty = lambda t: t[:, :0].contiguous()  # noqa: E731
+    out = lstm_cuda.bilstm_bwd_lite_f32_resident(
+        xg[:, :, :0].contiguous(), lengths[:0], w_hh[:, :1].contiguous(),
+        *(empty(t) for t in (hs_f, hs_b, cs_f, cs_b)), (), (), None, None, cd)
+    assert out.shape == (2, 4, 0, 384)
+    out = lstm_cuda.bilstm_bwd_lite_f32_resident(
+        xg[:, :0].contiguous(), lengths, w_hh, *(t[:0].contiguous() for t in (hs_f, hs_b, cs_f,
+                                                                             cs_b)),
+        (), (), dhn, dcn, cd)
+    assert out.shape == (2, 0, 10, 384)
+    assert lstm_cuda.bilstm_bwd_lite_f32_resident.launches == before
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
+        lstm_cuda.bilstm_bwd_lite_f32_resident(xg, lengths, w_hh.to(bf), hs_f.to(bf),
+                                               hs_b.to(bf), cs_f.to(bf), cs_b.to(bf), (), (),
+                                               None, None, bf)
+    wide = layer_case(4, 10, [128], 128, 2, cd, cuda_device)
+    xw = input_gates(*wide[:1], wide[2], wide[4], cd)
+    hw = bidir_recurrence(xw, wide[1], wide[3], cd, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
+        lstm_cuda.bilstm_bwd_lite_f32_resident(xw, wide[1], wide[3], hw[0], hw[1], hw[4], hw[5],
+                                               (), (), None, None, cd)

@@ -105,9 +105,10 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
     named before the tensor-core instance at 288: the tensor-core sweep in
     bf16 at H = 128 and 256, the CUDA-core one at the other bf16 widths;
     except bf16 at H = 288, which the tensor-core sweep now takes (the
-    layers of 257-288 units, embedding 272 among them), and f32 at 128, 256
-    and 288, which the f32 tensor-core sweep (three tf32 passes) takes; f32
-    at 96, 160, 192 and 224 keeps the CUDA-core one."""
+    layers of 257-288 units, embedding 272 among them), f32 at 128, 256
+    and 288, which the f32 tensor-core sweep (three tf32 passes) takes, and
+    f32 at 96, which its one-block instance with W_hh resident takes; f32
+    at 160, 192 and 224 keeps the CUDA-core one."""
     wide = set()
     for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
@@ -125,6 +126,8 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
             if not bf16 and Hp in (128, 256, 288):
                 want = "bilstm_bwd_lite_f32"
+            if not bf16 and Hp == 96:
+                want = "bilstm_bwd_lite_f32_resident"
             assert lstm_cuda.lite_kernel(Hp, dtype) == want, (what, H, Hp)
     assert 288 in wide and 256 in wide and 96 in wide
 
@@ -197,7 +200,8 @@ def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
     emptied: ``LITE_F32_WIDTHS`` = ()), and the same kernel at every step,
     except one: in f32 the lite sweep at Hp = 128, 256 and 288 is
     ``bilstm_bwd_lite_f32`` where it was ``bilstm_bwd_lite``. bf16 changes
-    nothing; f32 at Hp = 96, 160, 192 and 224 keeps the CUDA-core sweep."""
+    nothing; f32 at Hp = 160, 192 and 224 keeps the CUDA-core sweep (and 96
+    its one-block sweep, which has no cap here)."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "LITE_F32_WIDTHS", ())
@@ -220,9 +224,56 @@ def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
     if dtype == torch.bfloat16:
         assert changed == set()
     else:
-        assert changed == {128, 256} and kept == {96, 160, 192, 224}
+        assert changed == {128, 256} and kept == {160, 192, 224}
+        assert lstm_cuda.lite_kernel(96, dtype) == "bilstm_bwd_lite_f32_resident"
         # 288 lies past JAX's f32 plans (242): the grid's widest f32 layer
         assert lstm_cuda.lite_kernel(288, dtype) == "bilstm_bwd_lite_f32"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_f32_resident_forward_and_lite_sweep_change_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the f32 tensor-core forward took H = 80 and the one-block
+    f32 lite sweep took H = 96 (the plans with those two caps set back:
+    ``FWD_F32_MAX_H`` at 64, ``LITE_F32_RESIDENT_WIDTHS`` = ()), and the
+    same kernel at every step, except two, both in f32: the resident
+    forward at Hp = 80 (layer 0 of 65-80 units, run at E = 72 or 80) is
+    ``bilstm_fwd_f32`` where it was ``bilstm_fwd``, and the lite sweep at
+    Hp = 96 (the stacked layers of 65-96 units and layer 0 of 81-96)
+    ``bilstm_bwd_lite_f32_resident`` where it was ``bilstm_bwd_lite``. bf16
+    changes nothing."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "FWD_F32_MAX_H", 64)
+            m.setattr(lstm_cuda, "LITE_F32_RESIDENT_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
+            assert not diff, key
+    if dtype == torch.bfloat16:
+        assert changed == {}
+        return
+    assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_f32"),
+                              ("bilstm_bwd_lite", "bilstm_bwd_lite_f32_resident")}
+    assert changed["bilstm_fwd", "bilstm_fwd_f32"] == {("resident", 80, (72,)),
+                                                       ("resident", 80, (80,))}
+    assert {(route, Hp) for route, Hp, _ in changed[
+        "bilstm_bwd_lite", "bilstm_bwd_lite_f32_resident"]} == {("wide", 96)}
+    # the model at embedding 80: layer 0 and the stacked layer, each once
+    assert after["train layer 0", 80][3][0] == "bilstm_fwd_f32"
+    assert after["train stacked", 80][1:3] == (96, (80, 80))
+    assert after["train stacked", 80][3][2] == "bilstm_bwd_lite_f32_resident"
 
 
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
