@@ -44,8 +44,7 @@ exits non-zero with no result):
    f32 lite sweep at H = 96, T = 1 and 5); at their own main path's shapes
    (layer 0 of the two-layer model at embedding 80: E = H = 80, 5 groups,
    two dy streams a direction) the 3xTF32 forward ``bilstm_fwd_f32`` (both
-   variants, its 320-thread instance) in f32 (in turns with
-   ``bilstm_fwd.cu`` by name) and ``bilstm_fwd.cu`` in bf16,
+   variants, its 320-thread instance) in f32 and ``bilstm_fwd.cu`` in bf16,
    ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last gate tile
    masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name), the
    one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns with
@@ -101,10 +100,16 @@ exits non-zero with no result):
    their bounds, ``addmm`` and cuDNN, the forward at each row tile in
    turns with the dispatch; the f32 lite sweep on its main path (the
    stacked layer at embedding 80, H = 96), the one-block
-   ``bilstm_bwd_lite_f32_resident``, in turns with ``bilstm_bwd_lite.cu``
-   by name, beside its bounds and cuDNN; ``bilstm_bwd.cu`` in bf16 on its
-   main path (layer 0 at embedding 72, E = H = 72), timed beside its bound
-   and cuDNN; the wide forward (both variants, the CUDA-core
+   ``bilstm_bwd_lite_f32_resident``, beside its bounds and cuDNN; layer 0
+   of the bf16 model at embedding 72 (E = H = 72): the tensor-core sweep
+   ``bilstm_bwd_mma`` (its <72, 72> instance) in turns with
+   ``bilstm_bwd.cu`` by name, and the forward there, ``bilstm_fwd.cu``
+   (both variants), beside their bounds and cuDNN; ``bilstm_bwd.cu`` in
+   bf16 on its main path (the stacked layer at embedding 16, E = 16 + 16,
+   H = 16), timed beside its bound and cuDNN; the bf16 two-layer model at
+   embedding 72 at the train shape (2 steps and an eval step, timed: layer
+   0 on ``bilstm_bwd_mma``, never ``bilstm_bwd.cu``); the wide forward
+   (both variants, the CUDA-core
    ``bilstm_fwd_wide.cu``) and lite sweep at the stacked layer at
    embedding 80 (run at H = 96) in bf16 and in f32, against their twins,
    timed beside their bounds and cuDNN; at 288 the
@@ -115,9 +120,11 @@ exits non-zero with no result):
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
-   112, (bf16) 272 and (bf16) 72, whose layer 0 is the main path of
-   ``bilstm_bwd.cu``, and of the recurrence backend at embedding 80 (run
-   at 96), each with the kernels it must launch;
+   112, (bf16) 272, (bf16) 72, whose layer 0 is the main path of the
+   tensor-core sweep's <72, 72> instance, and (bf16) 16, whose stacked
+   layer is ``bilstm_bwd.cu``'s, and of the recurrence backend at embedding
+   80 (run at 96), each with the kernels it must launch (and at 72 must
+   not);
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -161,11 +168,12 @@ exits non-zero with no result):
    and a random mask with holes, an all-zero and an all-one row. At H = 64
    and 32 the sweep is a tensor-core kernel (``lstm_recurrence_bwd_mma`` in
    bf16, ``lstm_recurrence_bwd_f32`` in f32, three tf32 passes), and in bf16
-   the weight gradient is ``lstm_recurrence_wgrad_mma``; the cluster sweep
+   the forward (``lstm_recurrence_fwd_mma``) and the weight gradient
+   (``lstm_recurrence_wgrad_mma``) are too; the cluster forward and sweep
    and the CUDA-core wgrad, asked for by name, are held and timed beside
    them (new, old, old, new); ragged cases (27 rows in 3 groups, T = 1, 2
-   and 5); the cluster sweep at its own main path's shapes (H = 128, 5
-   groups, f32). Each is timed
+   and 5, the bf16 forward at D = 1-3); the cluster sweep at its own main
+   path's shapes (H = 128, 5 groups, f32). Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and at H = 64
    and 32 in bf16, which also does the input projection; for the weight
@@ -183,11 +191,12 @@ exits non-zero with no result):
    beside the ones at 67;
 9. recurrence_path — with ``ops.lstm.DEFAULT_BACKEND = "recurrence"``, the
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
-   steps, one eval step): the forward, ``lstm_recurrence_bwd_mma`` and
-   ``lstm_recurrence_wgrad_mma`` must be > 0, the cluster sweep, the
-   CUDA-core wgrad and the layer kernels 0; then 2 f32 steps (and a
-   profiled one), whose sweep and wgrad must be ``lstm_recurrence_bwd_f32``
-   and the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
+   steps, one eval step): ``lstm_recurrence_fwd_mma``,
+   ``lstm_recurrence_bwd_mma`` and ``lstm_recurrence_wgrad_mma`` must be
+   > 0, the cluster forward and sweep, the CUDA-core wgrad and the layer
+   kernels 0; then 2 f32 steps (and a profiled one), whose forward, sweep
+   and wgrad must be the cluster forward, ``lstm_recurrence_bwd_f32`` and
+   the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
    embedding 128, whose sweep only the cluster kernel takes; a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
@@ -204,10 +213,13 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-five kernels, each with launches > 0 on a
+11. the ``kernels`` line (thirty-six kernels, each with launches > 0 on a
     main path; the tensor-core forward and lite sweep at 288 and the f32
     forward, bf16 sweep and wgrad at H = 80 as ``h288_*`` and ``h80_*``
-    fields of their kernels' entries; the CUDA-core wide forward's main
+    fields of their kernels' entries, the bf16 sweep and the CUDA-core
+    forward at E = H = 72 as ``h72_*``; the op's bf16 tensor-core forward at
+    H = 64 as an entry of its own; ``bilstm_bwd.cu`` from its main path,
+    the stacked layer at embedding 16; the CUDA-core wide forward's main
     path f32 at 96 and the CUDA-core lite sweep's bf16 at 96, each with the
     other dtype beside it; the bf16 op past 288, the f32 forward and sweep
     past 288, the f32 tensor-core lite sweep, the one-block f32 lite sweep
@@ -1036,17 +1048,15 @@ def embedding_80_kernels(dev) -> dict:
     ``bilstm_fwd.cu``, the tensor-core sweep ``bilstm_bwd_mma.cu`` (its
     <80, 80> instance) and ``bilstm_wgrad_mma.cu`` (its last gate tile
     masked: 4H = 320). Each is held against its plain twin with the main
-    path's lengths (groups at 0, 1 and T; in f32 ``bilstm_fwd.cu`` and
-    ``bilstm_bwd.cu`` by name too, in bf16 ``bilstm_wgrad.cu``), then timed
-    at full lengths beside the twin (timed once, in the check), its bound
-    (the f32 tensor-core kernels at 495/3 TFLOP/s, the others at their
-    dtype's rate), cuDNN's one-layer training forward, inference forward
-    and backward for the input in the same dtype, and cuBLAS's products
-    for wgrad, TF32 off; the f32 forward (both variants) in turns with
-    ``bilstm_fwd.cu`` by name, the f32 sweep with ``bilstm_bwd.cu`` by name
-    and the bf16 wgrad with ``bilstm_wgrad.cu`` by name (new, old, old,
-    new). One dict per dtype and kernel: "fwd", "fwd_eval", "bwd",
-    "wgrad"."""
+    path's lengths (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by name
+    too, in bf16 ``bilstm_wgrad.cu``), then timed at full lengths beside the
+    twin (timed once, in the check), its bound (the f32 tensor-core kernels
+    at 495/3 TFLOP/s, the others at their dtype's rate), cuDNN's one-layer
+    training forward, inference forward and backward for the input in the
+    same dtype, and cuBLAS's products for wgrad, TF32 off; the f32 sweep in
+    turns with ``bilstm_bwd.cu`` by name and the bf16 wgrad with
+    ``bilstm_wgrad.cu`` by name (new, old, old, new). One dict per dtype and
+    kernel: "fwd", "fwd_eval", "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
@@ -1054,8 +1064,7 @@ def embedding_80_kernels(dev) -> dict:
     picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("fwd", torch.float32): "bilstm_fwd", ("fwd_eval", torch.float32): "bilstm_fwd",
-               ("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
+    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -1087,9 +1096,7 @@ def embedding_80_kernels(dev) -> dict:
             dgc = calls["bwd"]()[2]
             calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             # the CUDA-core kernel asked for by name on the same operands
-            old = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
-                   "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd"),
-                   "bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
+            old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
                    "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
                                                    kernel="bilstm_wgrad")}
             if full:
@@ -1125,8 +1132,6 @@ def embedding_80_kernels(dev) -> dict:
                     res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
                                        for n, a, b in zip(gnames, flat(old["bwd"]()), flat(ref))})
                     for k in ("fwd", "fwd_eval"):
-                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
-                                       for n, a, b in zip(names, old[k](), want)})
                         out[k]["scaled_err"] = max(scaled_err(a, b)
                                                    for a, b in zip(calls[k](), want))
                     ev, tr = calls["fwd_eval"](), calls["fwd"]()
@@ -1365,6 +1370,7 @@ def train_counters():
             "bilstm_fwd_wide_mma": L.bilstm_fwd_wide_mma,
             "bilstm_wgrad_f32": L.bilstm_wgrad_f32,
             "lstm_recurrence_fwd": L.lstm_recurrence_fwd,
+            "lstm_recurrence_fwd_mma": L.lstm_recurrence_fwd_mma,
             "lstm_recurrence_bwd": L.lstm_recurrence_bwd,
             "lstm_recurrence_bwd_mma": L.lstm_recurrence_bwd_mma,
             "lstm_recurrence_bwd_f32": L.lstm_recurrence_bwd_f32,
@@ -1518,7 +1524,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
     profile = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
-                        "lstm_recurrence_fwd_kernel", "bilstm_fwd_wide_kernel",
+                        "lstm_recurrence_fwd_kernel", "lstm_recurrence_fwd_mma_kernel",
+                        "bilstm_fwd_wide_kernel",
                         "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
@@ -1638,8 +1645,10 @@ WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wi
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch (at 72 in
-# bf16 layer 0, E = H = 72, is the main path of bilstm_bwd.cu, which the
-# tensor-core sweep does not take: H % 16 != 0)
+# bf16 layer 0, E = H = 72, is the main path of the tensor-core sweep's
+# <72, 72> instance, and bilstm_bwd.cu must not launch; at 16 in bf16 the
+# stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's: K = 48, which the
+# tensor-core sweep does not take) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1653,8 +1662,11 @@ WIDTH_STEPS = (
     ("layer", 100, torch.float32, WIDE_F32),
     ("layer", 100, torch.bfloat16, WIDE_BF16),
     ("layer", 272, torch.bfloat16, WIDE_288_BF16),
-    ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd",
-                                   "bilstm_wgrad_mma", "bilstm_fwd_wide", "bilstm_bwd_lite")),
+    ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
+                                   "bilstm_wgrad_mma", "bilstm_fwd_wide", "bilstm_bwd_lite"),
+     ("bilstm_bwd",)),
+    ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
+                                   "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
                                     "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
@@ -1662,7 +1674,8 @@ WIDTH_STEPS = (
     ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                                        "lstm_recurrence_wgrad")),
     ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
-                                        "lstm_recurrence_wgrad_mma")),
+                                        "lstm_recurrence_wgrad_mma"),
+     ("lstm_recurrence_fwd_mma",)),
 )
 
 
@@ -2060,14 +2073,13 @@ def lite_f32_96(dev) -> dict:
     """The f32 lite sweep on its main path, the stacked layer of the f32
     two-layer model at embedding 80 (E = 2 x 80, run at H = 96, one weight
     group, one dy stream a direction), 400 rows: the one-block 3xTF32 sweep
-    ``bilstm_bwd_lite_f32_resident.cu`` the dispatch names there, and
-    ``bilstm_bwd_lite.cu`` by name on the same operands, each held against
-    the plain twin with the main path's lengths at T = 300 (1e-4 x max(1,
-    max|ref|)), then timed at T = 1500, full lengths, in turns (new, old,
-    old, new), beside the bounds at 495/3 TFLOP/s (three tf32 passes) and
-    at 67 (the CUDA-core kernel's) at the padded and the true widths, the
-    twin (timed once) and cuDNN's one-layer f32 backward for the input at
-    the true widths, TF32 off."""
+    ``bilstm_bwd_lite_f32_resident.cu`` the dispatch names there, held
+    against the plain twin with the main path's lengths at T = 300 (1e-4 x
+    max(1, max|ref|); the same bits twice), then timed at T = 1500, full
+    lengths, beside the bounds at 495/3 TFLOP/s (three tf32 passes) at the
+    padded and the true widths, the twin (timed once) and cuDNN's one-layer
+    f32 backward for the input at the true widths, TF32 off.
+    ``bilstm_bwd_lite.cu`` is no longer asked for by name there."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite
 
@@ -2087,14 +2099,12 @@ def lite_f32_96(dev) -> dict:
         hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         new = lambda: L.bilstm_bwd_lite(*args)  # noqa: E731
-        old = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")  # noqa: E731
         if full:
-            row["ms"], row["ms_again"], row["cuda_core_ms"] = in_turns(new, old, 3)
+            row["ms"] = time_ms(new, 3)
         else:
             ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep_lite(*args))
             got = new()
             res = {"dgates": rel_err(got, ref, TOL[cd]),
-                   "cuda_core_dgates": rel_err(old(), ref, TOL[cd]),
                    "twice": (0.0, bool(torch.equal(new(), got)))}
             row["scaled_err"] = scaled_err(got, ref)
             torch.cuda.synchronize()
@@ -2107,57 +2117,100 @@ def lite_f32_96(dev) -> dict:
     for key, Hw, Ew in (("", Hp, sum(Ep)), ("true_", H, sum(E_parts))):
         work = wide_layer_work(Ew, Hw, G, 4, ny)["lite"]
         row[f"{key}bound_ms"], row[f"{key}bound_by"] = bound([(*work, kernel_peak(cd, name))])
-        row[f"{key}cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
     row["library_ms"] = cudnn_stack_times(dev, cd, E=sum(E_parts), H=H,
                                           layers=1)["cudnn_bwd_data_ms"]
     return row
 
 
-def bwd_72_kernel(dev, G=G_TRAIN, ny=2) -> dict:
-    """``bilstm_bwd.cu`` in bf16 on its own main path: layer 0 of the bf16
-    two-layer model at embedding 72 (E = H = 72, which the tensor-core sweep
-    does not take: H % 16 != 0), 400 rows in 5 groups, two dy streams a
-    direction: held against its plain twin with the main path's lengths at
-    T = 300 (3e-2 x max(1, max|ref|)), then timed at T = 1500, full
-    lengths, beside its bound at the bf16 rate and at 67 TFLOP/s (its f32
-    FMAs), the twin (timed once) and cuDNN's one-layer bf16 backward for
-    the input, TF32 off."""
+def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, by_name=False,
+                          forwards=False) -> dict:
+    """The bf16 resident layer at ``E_parts``, ``H`` (``G`` weight groups,
+    ``ny`` dy streams a direction, 400 rows) on a main path of its own: its
+    sweep, which the dispatch must name ``sweep_want``, and with
+    ``forwards`` its forward (both variants, the kernel ``fwd_kernel``
+    names), each held against its plain twin with the main path's lengths
+    at T = 300 (3e-2 x max(1, max|ref|)), then timed at T = 1500, full
+    lengths, beside its bound at the bf16 rate (``cuda_core_bound_ms``: a
+    CUDA-core kernel's at 67 TFLOP/s, its f32 FMAs), the twin (timed once)
+    and cuDNN's one-layer bf16 training forward, inference forward and
+    backward for the input at the layer's widths, TF32 off. With
+    ``by_name`` the sweep is also held as ``bilstm_bwd.cu`` by name on the
+    same operands and timed in turns with it (new, old, old, new:
+    ``cuda_core_ms``). One dict each: "bwd", and "fwd", "fwd_eval"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
 
-    cd, E_parts, H = torch.bfloat16, [72], 72
-    if (L.layer_route(E_parts, H, cd), L.padded_width(E_parts, H, cd),
-            L.sweep_kernel(E_parts, H, cd)) != ("resident", 72, "bilstm_bwd"):
-        raise AssertionError("layer 0 at embedding 72 in bf16 is not bilstm_bwd.cu's")
-    row = {"layer": "layer 0 at embedding 72", "B": B_TRAIN, "T": T_TRAIN, "check_T": 300,
-           "E": 72, "H": H, "G": G, "ny": ny, "dtype": "bfloat16",
-           "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    cd, E_parts, E = torch.bfloat16, list(E_parts), sum(E_parts)
+    picked = (L.layer_route(E_parts, H, cd), L.padded_width(E_parts, H, cd),
+              L.sweep_kernel(E_parts, H, cd))
+    if picked != ("resident", H, sweep_want):
+        raise AssertionError(f"the bf16 layer at E={E_parts}, H={H} runs {picked}")
+    fwd_name = L.fwd_kernel(E_parts, H, cd)
+    shape = {"B": B_TRAIN, "T": T_TRAIN, "check_T": 300, "E_parts": E_parts, "H": H, "G": G,
+             "ny": ny, "dtype": "bfloat16", "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+    out = {"bwd": {"kernel": sweep_want, **shape}}
+    if forwards:
+        out["fwd"] = {"kernel": f"{fwd_name} (train)", **shape}
+        out["fwd_eval"] = {"kernel": f"{fwd_name} (eval)", **shape}
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
-            E_parts, H, G, cd, dev, SEED + 72, full_lengths=full, ny=ny,
-            T=T_TRAIN if full else 300)
-        hs_f, hs_b, _, _, cs_f, cs_b = L.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
-                                                                bias, cd)
+            E_parts, H, G, cd, dev, seed, full_lengths=full, ny=ny, T=T_TRAIN if full else 300)
+        fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
+        calls = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
+                 "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args)}
+        hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
+        calls["bwd"] = lambda: L.bilstm_bwd(*args)
+        old = lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd")  # noqa: E731
         if full:
-            row["ms"] = time_ms(lambda: L.bilstm_bwd(*args), 3)
+            for k in out:
+                if k == "bwd" and by_name:
+                    out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
+                        calls[k], old, 3)
+                else:
+                    out[k]["ms"] = time_ms(calls[k], 3)
         else:
-            ref, row["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
-            got = L.bilstm_bwd(*args)
-            flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
-            res = [rel_err(a, b, TOL[cd]) for a, b in zip(flat(got), flat(ref))]
+            ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
+            gnames = sweep_names(*ref[:2])
+            got = flat(calls["bwd"]())
+            res = {"bwd": {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(gnames, got, flat(ref))}}
+            res["bwd"]["twice"] = (0.0, all(torch.equal(a, b)
+                                            for a, b in zip(flat(calls["bwd"]()), got)))
+            out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got, flat(ref)))
+            if by_name:
+                res["bwd"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
+                                   for n, a, b in zip(gnames, flat(old()), flat(ref))})
+            if forwards:
+                want, out["fwd"]["plain_ms"] = timed_once(
+                    lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
+                _, out["fwd_eval"]["plain_ms"] = timed_once(
+                    lambda: L.bilstm_layer_fwd_plain(*fwd_args))
+                for k in ("fwd", "fwd_eval"):
+                    res[k] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, calls[k](), want)}
+                del want
             torch.cuda.synchronize()
-            row["max_abs_err"] = max(e for e, _ in res)
-            if not all(ok for _, ok in res):
-                emit({"phase": "widths", "failed": row})
-                raise AssertionError(f"bilstm_bwd.cu at E = H = 72 disagrees: {row}")
-            del ref, got
-        del parts, hs_f, hs_b, cs_f, cs_b, args
-    work = train_layer_work(72, H, 2, ny)["bwd"]
-    row["bound_ms"], row["bound_by"] = bound([(*work, kernel_peak(cd))])
-    row["cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
-    row["library_ms"] = cudnn_stack_times(dev, cd, E=72, H=72, layers=1)["cudnn_bwd_data_ms"]
-    return row
+            for k, r in res.items():
+                out[k]["max_abs_err"] = {n: e for n, (e, _) in r.items()}
+                if not all(ok for _, ok in r.values()):
+                    emit({"phase": "widths", "failed": out[k]})
+                    raise AssertionError(f"{out[k]['kernel']} at E={E_parts}, H={H} disagrees "
+                                         f"with its twin: {out[k]}")
+            del ref, got, res
+        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls
+    work = train_layer_work(E, H, 2, ny, G=G)
+    for k in out:
+        name = sweep_want if k == "bwd" else fwd_name
+        out[k]["bound_ms"], out[k]["bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
+        if name in ("bilstm_fwd", "bilstm_bwd") or (k == "bwd" and by_name):
+            out[k]["cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
+    lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
+    for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
+                   ("bwd", "cudnn_bwd_data_ms")):
+        if k in out:
+            out[k]["library_ms"] = lib[key]
+    return out
 
 
 def phase_widths(dev) -> dict:
@@ -2169,9 +2222,13 @@ def phase_widths(dev) -> dict:
     forward and lite sweep, never the CUDA-core ones); ``lite_f32_kernels``
     (the f32 tensor-core lite sweep at 288, 256 and 128);
     ``wide_f32_kernels`` (the f32 tensor-core gates and wide forward
-    there); ``lite_f32_96`` (the one-block f32 lite sweep on its main path,
-    in turns with ``bilstm_bwd_lite.cu`` by name); ``bwd_72_kernel``
-    (``bilstm_bwd.cu`` on its main path); ``wide_cuda_core_kernels`` at
+    there); ``lite_f32_96`` (the one-block f32 lite sweep on its main
+    path); ``resident_bf16_kernels`` on layer 0 of the bf16 model at
+    embedding 72 (the tensor-core sweep's <72, 72> instance, in turns with
+    ``bilstm_bwd.cu`` by name, and ``bilstm_fwd.cu``, its forward there)
+    and on the stacked layer of the bf16 model at embedding 16
+    (``bilstm_bwd.cu``'s main path); the bf16 two-layer model at embedding
+    72 at the train shape (2 steps and an eval step, timed); ``wide_cuda_core_kernels`` at
     embedding 272's layer 0 (H = 288, the bf16 tensor-core forward and lite
     sweep) and at embedding 80's stacked layer (H = 96: the CUDA-core
     forward in both dtypes, the CUDA-core lite sweep in bf16 and the
@@ -2200,26 +2257,45 @@ def phase_widths(dev) -> dict:
     lite_f32 = lite_f32_kernels(dev)
     wide_f32 = wide_f32_kernels(dev)
     lite_96 = lite_f32_96(dev)
-    bwd_72 = bwd_72_kernel(dev)
+    bf16_72 = resident_bf16_kernels(dev, [72], 72, G_TRAIN, 2, SEED + 72, "bilstm_bwd_mma",
+                                    by_name=True, forwards=True)
+    bwd_16 = resident_bf16_kernels(dev, [16, 16], 16, 1, 1, SEED + 16, "bilstm_bwd")
+    # the bf16 model at embedding 72 at the train shape: layer 0 on the
+    # CUDA-core forward and the tensor-core sweep (bilstm_bwd.cu never), the
+    # stacked layer wide at 96
+    models["embedding_72_bfloat16"] = f32_steps(
+        dev, batches, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
+                       "bilstm_wgrad_mma", "bilstm_gates_mma", "bilstm_fwd_wide_train",
+                       "bilstm_fwd_wide", "bilstm_bwd_lite"),
+        ("bilstm_bwd", "bilstm_layer_fwd_mma", "bilstm_layer_fwd_train_mma", "bilstm_wgrad"),
+        eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
                                         "bilstm_fwd_wide", "bilstm_bwd_lite")
     kernels_96_f32 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 52,
                                             "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
                                             torch.float32)
+    # the CUDA-core wide forward and lite sweep in f32 at the widths no
+    # tensor-core kernel takes (layer 0 at E = H, no cell runs them): timed
+    # beside their bounds and cuDNN
+    kernels_f32_wide = {f"h{H}": wide_cuda_core_kernels(
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide", "bilstm_bwd_lite",
+        torch.float32) for H in (160, 192, 224)}
     steps = []
-    for backend, width, dtype, expect in WIDTH_STEPS:
+    for backend, width, dtype, expect, *never in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
         try:
             check = train_grad_check(dev, dtype=dtype, eval_step=True, expect=expect,
-                                     embedding_size=width)
+                                     never=never[0] if never else (), embedding_size=width)
         finally:
             lstm.DEFAULT_BACKEND = "auto"
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
-           "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96, "bwd_72": bwd_72,
+           "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96,
+           "bf16_72": bf16_72, "bwd_16": bwd_16,
            "kernels_288": kernels_288, "kernels_96": kernels_96,
-           "kernels_96_float32": kernels_96_f32, "grad_checks": steps}
+           "kernels_96_float32": kernels_96_f32, "kernels_float32_wide": kernels_f32_wide,
+           "grad_checks": steps}
     emit(out)
     return out
 
@@ -2937,8 +3013,10 @@ def recurrence_library(T, H, dev, B=B_TRAIN, dtype=torch.float32):
 def ragged_recurrence_check(dev) -> list:
     """The tensor-core recurrence sweeps against their twin where no size is
     round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16
-    and f32 (3xTF32); then the tensor-core wgrad there at T = 1 (no row), 2
-    and 5, at H = 64 and at H = 96 (a partial column tile)."""
+    and f32 (3xTF32); the bf16 tensor-core forward there at H = 64 and 32,
+    T = 1 and 5, D = 1, 2 and 3, both masks; then the tensor-core wgrad
+    there at T = 1 (no row), 2 and 5, at H = 64 and at H = 96 (a partial
+    column tile)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -2964,6 +3042,22 @@ def ragged_recurrence_check(dev) -> list:
         if not ok:
             emit({"phase": "recurrence_kernel", "failed": check})
             raise AssertionError(f"the ragged recurrence sweep disagrees with its twin: {check}")
+    for H, T, D, mask in ((H_SERVE, 1, 2, "lengths"), (H_SERVE, 5, 3, "holes"),
+                          (32, 5, 2, "lengths"), (32, 1, 1, "holes")):
+        xg, valid, w, _, _, _ = recurrence_inputs(T, H, 3, cd, dev, mask, SEED + 81 + T, B=27,
+                                                  D=D)
+        res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
+            ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd_mma(xg, valid, w, 3, cd),
+            recurrence_fwd(xg, valid, w, 3, cd))}
+        torch.cuda.synchronize()
+        check = {"kernel": "lstm_recurrence_fwd_mma", "B": 27, "G": 3, "T": T, "D": D, "H": H,
+                 "dtype": "bfloat16", "mask": mask,
+                 "max_abs_err": {n: e for n, (e, _) in res.items()},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not all(ok for _, ok in res.values()):
+            emit({"phase": "recurrence_kernel", "failed": check})
+            raise AssertionError(f"the ragged recurrence forward disagrees with its twin: {check}")
     for H in (H_SERVE, 96):
         for T in (1, 2, 5):
             g = torch.Generator(device=dev).manual_seed(SEED + 85 + T)
@@ -2990,7 +3084,8 @@ def cluster_sweep_h128(dev, H=128) -> dict:
     D = 2, 400 rows in 5 weight groups, T = 1500, masks from lengths; held
     against its plain twin (timed once), then timed beside its bound at the
     CUDA cores' f32 rate and cuDNN's one-layer backward for the input, TF32
-    off."""
+    off; the cluster forward, its forward there, timed beside its bound and
+    cuDNN's one-layer training forward (``fwd_*``)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
@@ -3010,9 +3105,12 @@ def cluster_sweep_h128(dev, H=128) -> dict:
     if not ok:
         emit({"phase": "recurrence_kernel", "failed": out})
         raise AssertionError(f"the cluster sweep disagrees with its plain version: {out}")
-    add_bounds(out, {"bwd": recurrence_work(T_TRAIN, H, G, 4)["bwd"]}, cd)
+    if L.recurrence_fwd_kernel(H, cd) != "lstm_recurrence_fwd":
+        raise AssertionError(f"H={H}'s forward is {L.recurrence_fwd_kernel(H, cd)}")
+    out["fwd_ms"] = time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd), 3)
+    add_bounds(out, {k: recurrence_work(T_TRAIN, H, G, 4)[k] for k in ("fwd", "bwd")}, cd)
     del xg, valid, w, dhs, hs, cs, want, args
-    out["library_ms"] = recurrence_library(T_TRAIN, H, dev)[1]
+    out["fwd_library_ms"], out["library_ms"] = recurrence_library(T_TRAIN, H, dev)
     return out
 
 
@@ -3229,9 +3327,19 @@ def phase_recurrence_kernel(dev) -> dict:
                     T, H, G, dtype, dev, mask, SEED + 60 + i)
                 tol = TOL[dtype]
                 ref, fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G, dtype))
+                # the forward the dispatch picks (bf16 at H <= 64 the
+                # tensor-core one), and there also the cluster kernel by name
+                fwd = L.recurrence_fwd_kernel(H, dtype)
                 got = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
                 res = {n: rel_err(a, b, tol)
                        for n, a, b in zip(("hs", "cs", "hn", "cn"), got, ref)}
+                if fwd != "lstm_recurrence_fwd":
+                    again = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
+                    res["twice"] = (0.0, all(torch.equal(a, b) for a, b in zip(got, again)))
+                    del again
+                    res.update({f"cluster_{n}": rel_err(a, b, tol) for n, a, b in zip(
+                        ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd(
+                            xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd"), ref)})
                 del got
                 hs, cs = ref[:2]
                 args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
@@ -3254,7 +3362,7 @@ def phase_recurrence_kernel(dev) -> dict:
                 torch.cuda.synchronize()
                 shape = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
                          "dtype": str(dtype).replace("torch.", ""), "mask": mask,
-                         "sweep": sweep, "wgrad": wgrad}
+                         "fwd": fwd, "sweep": sweep, "wgrad": wgrad}
                 check = {**shape, "valid_share": float(valid.float().mean()),
                          "max_abs_err": {n: e for n, (e, _) in res.items()},
                          "tol": f"{tol} x max(1, max|ref|)"}
@@ -3263,11 +3371,17 @@ def phase_recurrence_kernel(dev) -> dict:
                     emit({"phase": "recurrence_kernel", "failed": check})
                     raise AssertionError(
                         f"a recurrence kernel disagrees with its plain version: {check}")
-                t = {**shape,
-                     "fwd_ms": time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype), 3),
-                     "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
+                new_fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, dtype)  # noqa: E731
+                t = {**shape, "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
+                if fwd != "lstm_recurrence_fwd":
+                    # new, old, old, new: both forwards in one run, on one card
+                    t["fwd_ms"], t["fwd_ms_again"], t["fwd_cluster_ms"] = in_turns(
+                        new_fwd, lambda: L.lstm_recurrence_fwd(
+                            xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd"), 3)
+                else:
+                    t["fwd_ms"] = time_ms(new_fwd, 3)
                 new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
                 if wgrad == "lstm_recurrence_wgrad_mma":
                     # new, old, old, new: both wgrads in one run, on one card
@@ -3283,7 +3397,7 @@ def phase_recurrence_kernel(dev) -> dict:
                     t["bwd_cluster_ms"] = 0.5 * (old[0] + old[1])
                     t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype,
-                           {"bwd": kernel_peak(dtype, sweep)})
+                           {"bwd": kernel_peak(dtype, sweep), "fwd": kernel_peak(dtype, fwd)})
                 library = mask == "lengths" and (dtype == torch.float32 or H != E_SCALED)
                 if library:
                     # yardsticks the port never calls: cuDNN for the recurrence
@@ -3331,7 +3445,9 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     from intrepppid_tpu_torch.ops import lstm
     from intrepppid_tpu_torch.train import Trainer
 
-    new = ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma")
+    # the bf16 step's kernels; everything else, the cluster forward among
+    # them, must stay at 0
+    new = ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma")
     lstm.DEFAULT_BACKEND = "recurrence"
     try:
         rng = np.random.default_rng(SEED)
@@ -3358,7 +3474,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         breakdown = profile_device(
             lambda: trainer.train_step(batches[0])["loss"].item(), top=12,
-            groups={"fwd": "lstm_recurrence_fwd_kernel",
+            groups={"fwd_mma": "lstm_recurrence_fwd_mma_kernel",
+                    "fwd": "lstm_recurrence_fwd_kernel",
                     "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
                     "sweep_f32": "lstm_recurrence_bwd_f32_kernel",
                     "sweep_cluster": "lstm_recurrence_bwd_kernel",
@@ -3371,22 +3488,23 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         layer = [n for n, c in launches.items() if n not in new and c != 0]
         if missing or layer:
             raise AssertionError(
-                f"the recurrence-backend steps missed {missing} or ran the cluster sweep, the "
-                f"CUDA-core wgrad or a layer kernel: {layer}")
+                f"the recurrence-backend steps missed {missing} or ran the cluster forward or "
+                f"sweep, the CUDA-core wgrad or a layer kernel: {layer}")
         del trainer, net
         layer_kernels = tuple(n for n in train_counters() if n.startswith("bilstm_"))
         f32 = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
                          "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma",
-                         "lstm_recurrence_bwd") + layer_kernels)
+                        ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
+                         "lstm_recurrence_wgrad_mma", "lstm_recurrence_bwd") + layer_kernels)
         # the cluster sweep keeps the widths past 64: a one-layer f32 model
         # at embedding 128 runs it
         f32_cluster = f32_steps(dev, batches,
                                 ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                                  "lstm_recurrence_wgrad"),
-                                ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
-                                 "lstm_recurrence_wgrad_mma") + layer_kernels,
+                                ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
+                                 "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma")
+                                + layer_kernels,
                                 embedding_size=128, rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
@@ -3400,7 +3518,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # sweep in three tf32 passes, in bf16 the tensor-core kernels past 288,
     # never the cluster kernels (which take up to 288 units); no layer
     # kernel in either
-    old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd")
+    old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
     f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
@@ -3576,24 +3694,19 @@ def main() -> int:
         e = e80["float32"][key]
         ragged = [v for c in tk["ragged_checks"] if c["kernel"] == "bilstm_fwd_f32"
                   for n, v in c["max_abs_err"].items() if n.startswith("eval_") == (key != "fwd")]
-        own = [v for n, v in e["max_abs_err"].items()
-               if not n.startswith("cuda_core_") and not n.endswith("_vs_train_hs")]
-        fields = {f"h80_{k}": e[k] for k in ("ms", "ms_again", "cuda_core_ms", "plain_ms",
-                                             "cuda_core_bound_ms", "library_ms", "scaled_err")}
+        own = [v for n, v in e["max_abs_err"].items() if not n.endswith("_vs_train_hs")]
+        fields = {f"h80_{k}": e[k] for k in ("ms", "plain_ms", "library_ms", "scaled_err")}
         fields.update({"h80_bound_ms": e[f"{key}_bound_ms"], "h80_bound_by": e[f"{key}_bound_by"],
                        "h80_launches": e80_launches["float32"][name],
-                       "h80_max_abs_err": max(own + ragged),
-                       "h80_cuda_core_max_abs_err": max(v for n, v in e["max_abs_err"].items()
-                                                        if n.startswith("cuda_core_"))})
+                       "h80_max_abs_err": max(own + ragged)})
         if fields["h80_launches"] <= 0:
             raise AssertionError(f"the f32 model at embedding 80 never ran {name}")
         return fields
 
     h80_work = ("; h80_*: its 320-thread instance on layer 0 of the f32 two-layer model at "
                 "embedding 80 (E=H=80, 5 groups), 400 rows, T=1500, 8-row tiles, launches in "
-                "that model's steps, cuda_core_ms: bilstm_fwd.cu by name in turns (its bound "
-                "cuda_core_bound_ms at 67 TFLOP/s), library: cuDNN one-layer f32 at E=H=80; "
-                "max_abs_err also over 27 rows in 3 groups at T = 1 and 5")
+                "that model's steps, library: cuDNN one-layer f32 at E=H=80; max_abs_err also "
+                "over 27 rows in 3 groups at T = 1 and 5")
     kernels[0].update(h80_fields("fwd_eval", "bilstm_layer_fwd_f32"))
     kernels[0]["work"] += h80_work
     t32, t16 = tk["timings"]["float32"], tk["timings"]["bfloat16"]
@@ -3751,49 +3864,59 @@ def main() -> int:
             entry["work"] += ("; bfloat16_by_name_*: this kernel asked for by name on the bf16 "
                               "layer's operands, in turns with bilstm_wgrad_mma")
         else:
-            # f32 at embedding 80 takes bilstm_fwd_f32; this kernel there by name
-            o = e80[other][key]
-            entry.update({"float32_by_name_ms": o["cuda_core_ms"],
-                          "float32_by_name_bound_ms": o["cuda_core_bound_ms"],
-                          "float32_by_name_max_abs_err": max(
-                              v for n, v in o["max_abs_err"].items()
-                              if n.startswith("cuda_core_"))})
-            entry["work"] += ("; float32_by_name_*: this kernel asked for by name on the f32 "
-                              "layer's operands, in turns with bilstm_fwd_f32, its bound at 67 "
-                              "TFLOP/s")
+            # layer 0 of the bf16 model at embedding 72 (E = H = 72) runs it too
+            o = widths["bf16_72"][key]
+            entry.update({f"h72_{k}": o[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms")})
+            entry["h72_max_abs_err"] = max(o["max_abs_err"].values())
+            entry["h72_launches"] = widths["models"]["embedding_72_bfloat16"]["launches"][name]
+            if entry["h72_launches"] <= 0:
+                raise AssertionError(f"the bf16 model at embedding 72 never ran {name}")
+            entry["work"] += ("; h72_*: layer 0 of the bf16 two-layer model at "
+                              "embedding 72 (E=H=72, 5 groups), 400 rows, T=1500, launches in "
+                              "that model's steps, h72_cuda_core_bound_ms its bound at 67 "
+                              "TFLOP/s (its f32 FMAs), library: cuDNN one-layer bf16 at E=H=72")
         if entry["launches"] <= 0:
             raise AssertionError(f"the {dtype} model at embedding 80 never ran {name}")
         kernels.append(entry)
     # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
-    # take; its main path is layer 0 (E = H = 72) of the bf16 two-layer model
-    # at embedding 72 (phase widths' gradient and eval step), timed there.
-    # Also by name on layer 0 at embedding 80 in f32, in turns with the
-    # one-stage sweep
-    b72 = widths["bwd_72"]
-    g72 = next(c for c in widths["grad_checks"]
-               if c["backend"] == "layer" and c.get("embedding_size") == 72)
+    # take; its main path is the stacked layer (E = 16 + 16, H = 16) of the
+    # bf16 two-layer model at embedding 16 (phase widths' gradient and eval
+    # step), timed there. Also by name on layer 0 at embedding 80 in f32, in
+    # turns with the one-stage sweep, and on layer 0 at embedding 72 in bf16,
+    # in turns with the tensor-core sweep's <72, 72> instance
+    b16, b72 = widths["bwd_16"]["bwd"], widths["bf16_72"]["bwd"]
+    g16 = next(c for c in widths["grad_checks"]
+               if c["backend"] == "layer" and c.get("embedding_size") == 16)
     kernels.append({
         "name": "bilstm_bwd",
         "route": "cuda",
         "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
         "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
-        "launches": g72["launches"].get("bilstm_bwd", 0),
-        "max_abs_err": b72["max_abs_err"],
-        "ms": b72["ms"],
-        "plain_ms": b72["plain_ms"],
-        "bound_ms": b72["bound_ms"],
-        "bound_by": b72["bound_by"],
-        "library_ms": b72["library_ms"],
-        "cuda_core_bound_ms": b72["cuda_core_bound_ms"],
+        "launches": g16["launches"].get("bilstm_bwd", 0),
+        "max_abs_err": max(b16["max_abs_err"].values()),
+        "ms": b16["ms"],
+        "plain_ms": b16["plain_ms"],
+        "bound_ms": b16["bound_ms"],
+        "bound_by": b16["bound_by"],
+        "library_ms": b16["library_ms"],
+        "cuda_core_bound_ms": b16["cuda_core_bound_ms"],
         "float32_ms": e80["float32"]["bwd"]["cuda_core_ms"],
         "float32_max_abs_err": max(v for n, v in e80["float32"]["bwd"]["max_abs_err"].items()
                                    if n.startswith("cuda_core_")),
-        "work": "layer 0 of the bf16 two-layer model at embedding 72 (E=H=72, 5 groups, two dy "
-                "streams a direction), 400 rows, T=1500; launches: that model's gradient and "
-                "eval step; bound at the bf16 rate (cuda_core_bound_ms at 67 TFLOP/s, its f32 "
-                "FMAs); library: cuDNN one-layer nn.LSTM backward (input) in bf16 at E=H=72, "
-                "TF32 off; float32_*: by name on the operands of layer 0 of the f32 two-layer "
-                "model at embedding 80 (E=H=80), in turns with bilstm_bwd_f32_onestage",
+        "h72_by_name_ms": b72["cuda_core_ms"],
+        "h72_by_name_max_abs_err": max(v for n, v in b72["max_abs_err"].items()
+                                       if n.startswith("cuda_core_")),
+        "h72_cuda_core_bound_ms": b72["cuda_core_bound_ms"],
+        "work": "the stacked layer of the bf16 two-layer model at embedding 16 (E=16+16, H=16, "
+                "one group, one dy stream a direction), 400 rows, T=1500; launches: that "
+                "model's gradient and eval step; bound at the bf16 rate (cuda_core_bound_ms at "
+                "67 TFLOP/s, its f32 FMAs); library: cuDNN one-layer nn.LSTM backward (input) "
+                "in bf16 at E=32, H=16, TF32 off; float32_*: by name on the operands of layer 0 "
+                "of the f32 two-layer model at embedding 80 (E=H=80), in turns with "
+                "bilstm_bwd_f32_onestage; h72_by_name_*: by name on layer 0 of the bf16 model "
+                "at embedding 72 (E=H=72, 5 groups), in turns with bilstm_bwd_mma (its bound at "
+                "67 TFLOP/s h72_cuda_core_bound_ms)",
     })
     kernels.append({
         "name": "bilstm_bwd_mma",
@@ -3818,15 +3941,31 @@ def main() -> int:
         "h80_launches": e80_launches["bfloat16"]["bilstm_bwd_mma"],
         "h80_max_abs_err": max(v for n, v in e80["bfloat16"]["bwd"]["max_abs_err"].items()
                                if not n.startswith("cuda_core_")),
+        # its <72, 72> instance: layer 0 of the bf16 model at embedding 72
+        **{f"h72_{k}": b72[k] for k in ("ms", "ms_again", "cuda_core_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms", "scaled_err")},
+        "h72_launches": widths["models"]["embedding_72_bfloat16"]["launches"]["bilstm_bwd_mma"],
+        "h72_grad_check_launches": next(
+            c for c in widths["grad_checks"]
+            if c["backend"] == "layer" and c.get("embedding_size") == 72)["launches"].get(
+                "bilstm_bwd_mma", 0),
+        "h72_max_abs_err": max(v for n, v in b72["max_abs_err"].items()
+                               if not n.startswith("cuda_core_")),
         "work": "both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
                 "cuda_core_ms: bilstm_bwd.cu on the same operands in the same run; library: "
                 "cuDNN nn.LSTM backward (input) in bf16; h80_*: its <80, 80> instance on layer "
                 "0 of the bf16 two-layer model at embedding 80 (E=H=80, 5 groups, two dy "
                 "streams a direction), 400 rows, T=1500, its launches in that model's steps, "
-                "library: cuDNN one-layer bf16 backward (input)",
+                "library: cuDNN one-layer bf16 backward (input); h72_*: its <72, 72> instance "
+                "(K=144 run as 160 over zero columns) on layer 0 of the bf16 two-layer model at "
+                "embedding 72 (E=H=72, 5 groups, two dy streams), 400 rows, T=1500, in turns "
+                "with bilstm_bwd.cu by name (cuda_core_ms), launches in that model's timed "
+                "steps, library: cuDNN one-layer bf16 backward (input) at E=H=72",
     })
-    if kernels[-1]["h80_launches"] <= 0:
-        raise AssertionError("the bf16 model at embedding 80 never ran the tensor-core sweep")
+    if min(kernels[-1]["h80_launches"], kernels[-1]["h72_launches"],
+           kernels[-1]["h72_grad_check_launches"]) <= 0:
+        raise AssertionError("the bf16 models at embedding 80 and 72 never ran the tensor-core "
+                             "sweep")
     # the tensor-core forward (both variants) and wgrad: the bf16 step and its eval step
     w16 = wk["timings"]["bfloat16"]
     mma_errs = {"fwd": train_errs["fwd"], "wgrad": train_errs["wgrad"],
@@ -3891,9 +4030,8 @@ def main() -> int:
     # the CUDA-core wide forward and lite sweep: their main path is the
     # stacked layer of the two-layer model at embedding 80 (run at H = 96),
     # the forward's in f32 (the same in bf16: bfloat16_*), the lite sweep's
-    # in bf16 (by name in f32 there, in turns with the one-block f32 sweep:
-    # float32_by_name_*); each by name in bf16 at the scaled widths in turns
-    # with the tensor-core kernel (bf16_h256_ms)
+    # in bf16; each by name in bf16 at the scaled widths in turns with the
+    # tensor-core kernel (bf16_h256_ms)
     f32_scaled = scaled["grad_check"]["launches"]
     lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
     k96, k96_f32 = widths["kernels_96"], widths["kernels_96_float32"]
@@ -3927,12 +4065,14 @@ def main() -> int:
                       "step's operands (layer 0 + one E=2x256 layer), in turns with the "
                       "tensor-core kernel",
         }
+        # f32 at 160, 192 and 224 (layer 0 at E = H, 5 groups; no cell runs them)
+        for h, r in widths["kernels_float32_wide"].items():
+            entry.update({f"float32_{h}_{k}": r[key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            entry[f"float32_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
+        entry["work"] += ("; float32_hN_*: layer 0 at E=H=N in f32 (5 groups, two dy streams), "
+                          "400 rows, T=1500, library: cuDNN one-layer f32 there")
         if key == "lite":
-            entry.update({"float32_by_name_ms": l96["cuda_core_ms"],
-                          "float32_by_name_bound_ms": l96["cuda_core_bound_ms"],
-                          "float32_by_name_max_abs_err": l96["max_abs_err"]["cuda_core_dgates"]})
-            entry["work"] += ("; float32_by_name_*: by name on the f32 layer's operands, in "
-                              "turns with bilstm_bwd_lite_f32_resident, its bound at 67 TFLOP/s")
             other_launches = e80_launches["float32"]["bilstm_bwd_lite_f32_resident"]
         else:
             o = k96[key]
@@ -3958,16 +4098,14 @@ def main() -> int:
                            + [v for c in tk["ragged_checks"] if c["kernel"] == name
                               for v in c["max_abs_err"].values()]),
         "scaled_err": l96["scaled_err"],
-        **{k: l96[k] for k in ("ms", "ms_again", "cuda_core_ms", "plain_ms", "bound_ms",
-                               "bound_by", "true_bound_ms", "cuda_core_bound_ms",
-                               "true_cuda_core_bound_ms", "library_ms")},
+        **{k: l96[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+                               "library_ms")},
         "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run at "
                 "H=96, one weight group, one dy stream), 400 rows, T=1500; launches in that "
                 "model's f32 steps; bound at 495/3 TFLOP/s (three tf32 passes) at H=96 "
-                "(true_bound_ms at 80; cuda_core_bound_ms at 67); cuda_core_ms: "
-                "bilstm_bwd_lite.cu by name on the same operands (new, old, old, new); library: "
-                "cuDNN one-layer f32 backward (input) at E=160, H=80, TF32 off; max_abs_err also "
-                "over the check at T=1500 and 27 rows in 3 groups at T = 1 and 5",
+                "(true_bound_ms at 80); library: cuDNN one-layer f32 backward (input) at E=160, "
+                "H=80, TF32 off; max_abs_err also over the check at T=1500 and 27 rows in 3 "
+                "groups at T = 1 and 5",
     })
     if kernels[-1]["launches"] <= 0:
         raise AssertionError("the f32 model at embedding 80 never ran the one-block lite sweep")
@@ -4161,11 +4299,11 @@ def main() -> int:
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
-    # the f32 sweep's and the CUDA-core wgrad's main path is the f32 step,
-    # the forward's the bf16 step
-    rec_launches = {**rpath["launches"], **{
-        n: rpath["float32_steps"]["launches"][n]
-        for n in ("lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad")}}
+    # the cluster forward's, the f32 sweep's and the CUDA-core wgrad's main
+    # path is the f32 step (the bf16 step's forward is the tensor-core one)
+    rec_launches = {n: rpath["float32_steps"]["launches"][n]
+                    for n in ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
+                              "lstm_recurrence_wgrad")}
     for key, name, replaces in (("fwd", "lstm_recurrence_fwd", "lstm_pallas.py:116"),
                                 ("bwd", "lstm_recurrence_bwd_f32", "lstm_pallas.py:185"),
                                 ("wgrad", "lstm_recurrence_wgrad", "lstm_pallas.py:185")):
@@ -4238,6 +4376,42 @@ def main() -> int:
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
+    # the tensor-core forward: the bf16 recurrence-backend step's
+    holes16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "holes"
+               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
+    ops_ms = sum(t["fwd_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = sum(t["fwd_bytes"] for t in step16) / PEAK_BYTES * 1e3
+    kernels.append({
+        "name": "lstm_recurrence_fwd_mma",
+        "route": "cuda",
+        "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_fwd_mma.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:116",
+        "launches": rpath["launches"]["lstm_recurrence_fwd_mma"],
+        "max_abs_err": max(v for c in rk["checks"] + rk["ragged_checks"]
+                           if c.get("fwd", c.get("kernel")) == "lstm_recurrence_fwd_mma"
+                           for n, v in c["max_abs_err"].items() if n in rec_errs["fwd"]),
+        "ms": sum(t["fwd_ms"] for t in step16),
+        "ms_again": sum(t["fwd_ms_again"] for t in step16),
+        "plain_ms": sum(t["fwd_plain_ms"] for t in step16),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": sum(t["fwd_library_ms"] for t in step16),
+        "cluster_ms": sum(t["fwd_cluster_ms"] for t in step16),
+        "cluster_max_abs_err": max(v for c in rk["checks"]
+                                   if c["fwd"] == "lstm_recurrence_fwd_mma"
+                                   for n, v in c["max_abs_err"].items()
+                                   if n.startswith("cluster_")),
+        "g5_ms": step16[0]["fwd_ms"], "g5_ms_again": step16[0]["fwd_ms_again"],
+        "g5_cluster_ms": step16[0]["fwd_cluster_ms"], "g5_bound_ms": step16[0]["fwd_bound_ms"],
+        "g5_library_ms": step16[0]["fwd_library_ms"],
+        "g5_holes_ms": holes16[0]["fwd_ms"], "g5_holes_cluster_ms": holes16[0]["fwd_cluster_ms"],
+        "work": "both layers of one recurrence-backend step (5 weight groups + 1), bf16 "
+                "compute dtype, D=2, 400 rows, T=1500, H=64, masks from lengths; cluster_ms: "
+                "lstm_recurrence_fwd.cu by name on the same operands (new, old, old, new); "
+                "library: cuDNN nn.LSTM training forward in bf16, which also does the input "
+                "projection; g5_*: layer 0 (5 groups) alone, g5_holes_*: the same with a mask "
+                "with holes; max_abs_err also over 27 rows in 3 groups, T = 1 and 5, D = 1-3",
+    })
     ops_ms = sum(t["bwd_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
     bytes_ms = sum(t["bwd_bytes"] for t in step16) / PEAK_BYTES * 1e3
     kernels.append({
@@ -4372,7 +4546,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 35 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 36 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     emit({"kernels": kernels})

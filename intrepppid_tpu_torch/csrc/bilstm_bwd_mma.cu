@@ -58,6 +58,17 @@
 // 100 blocks of the train step in one wave. ops/lstm_cuda.py:bwd_mma_plan
 // takes H = 80 at E = 80 only (the <80, 80> instance), the shapes
 // bilstm_bwd.cu took there, so no layer changes its route or padded shape.
+// At H % 16 == 8 (H = 8, 24, 40, 56, 72: layer 0 at embedding 72 is the
+// main path, E = H = 72, its <72, 72> instance) the gate rows still fill
+// whole m16 tiles (a warp's 8 units are 32 permuted rows) and the dh
+// product's K = 4H whole rounds of 32; only the gate product's K = E + H
+// stops 16 (or 8 or 24) short of a round. The kernel pads it inside: K runs
+// to Kp, the next multiple of 32, over zero columns of the resident weights
+// and of each stage's [x ; h] tile, written once (zero weights add exact
+// zeros). The streams, dgc, dx and dbias keep their true widths, and the
+// layer its padded shape: bwd_mma_plan takes these widths only at the
+// shapes bilstm_bwd.cu took there. At E = H = 72: 9 warps, K = 144 run as
+// 160, 125,824 B of shared memory.
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -114,7 +125,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bilstm_bwd_mma_kernel(const Ar
   const int tile = blockIdx.x, d = blockIdx.y;
   const int H = HT ? HT : a.H, H4 = 4 * H, T = a.T, B = a.B;
   const int E0 = a.E0, E1 = a.E1, E = ET ? ET : E0 + E1, K = E + H, ny = a.ny;
-  const int KS = K + kPad;   // weight and x|h tile row stride
+  const int Kp = (K + 31) & ~31;  // the gate product's K: zero columns past K
+  const int KS = Kp + kPad;  // weight and x|h tile row stride
   const int HS = H + kPad;   // c_prev / dy tile row stride
   const int GS = H4 + kPad;  // dgates tile row stride
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -130,7 +142,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bilstm_bwd_mma_kernel(const Ar
   const int unit = 8 * warp + g;  // main warps only
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* W_s = reinterpret_cast<bf16*>(smem);  // [4H permuted][KS]: W_ih | W_hh
+  bf16* W_s = reinterpret_cast<bf16*>(smem);  // [4H permuted][KS]: W_ih | W_hh | 0
   const uint32_t dg_at = (uint32_t)H4 * KS * 2;  // a multiple of 16
   bf16* dg_s = reinterpret_cast<bf16*>(smem + dg_at);  // [2][8][GS], permuted gate order
   const uint32_t stages_at = dg_at + 2 * kMmaTile * GS * 2;
@@ -211,23 +223,33 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bilstm_bwd_mma_kernel(const Ar
   if (maxlen > 1) fetch();
   cp_async_commit();
 
-  // stage [W_ih[d] | W_hh[d, group]] with permuted rows, 16 bytes a copy
+  // stage [W_ih[d] | W_hh[d, group] | 0] with permuted rows, 16 bytes a copy
+  const uint4 zero16 = make_uint4(0u, 0u, 0u, 0u);
   {
-    const int wpr = K / 8;
+    const int wpr = Kp / 8;
     const bf16* wi = a.w_ih + (size_t)d * H4 * E;
     const bf16* wh = a.w_hh + ((size_t)d * a.G + group) * H4 * H;
     for (int idx = tid; idx < H4 * wpr; idx += nthreads) {
       const int p = idx / wpr, c = (idx - p * wpr) * 8;
       const int j = gate_row_of_permuted(p, H);
       const bf16* src = c < E ? wi + (size_t)j * E + c : wh + (size_t)j * H + (c - E);
-      *reinterpret_cast<uint4*>(W_s + (size_t)p * KS + c) = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(W_s + (size_t)p * KS + c) =
+          c < K ? *reinterpret_cast<const uint4*>(src) : zero16;
+    }
+  }
+  // the [x ; h] tile's columns [K, Kp) of every stage: zero, never copied to
+  if (Kp > K) {
+    const int pc = max(1, (Kp - K) / 8);  // (max: no division by zero where Kp == K)
+    for (int idx = tid; idx < kStages * kMmaTile * pc; idx += nthreads) {
+      const int sn = idx / pc, c = K + (idx - sn * pc) * 8;
+      *reinterpret_cast<uint4*>(stages + (size_t)(sn / kMmaTile) * stage_bytes +
+                                ((sn % kMmaTile) * KS + c) * 2) = zero16;
     }
   }
 
   // positions [maxlen, T): zero dgc and dx rows, 16 bytes a store
   {
     const int per_pos = nrows * (H4 + E) / 8, ng = nrows * H4 / 8, n0 = nrows * E0 / 8;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     for (int idx = tid; idx < (T - maxlen) * per_pos; idx += nthreads) {
       const int pi = idx / per_pos, r = idx - pi * per_pos;
       const size_t at = (size_t)(maxlen + pi) * B + row0;
@@ -235,7 +257,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bilstm_bwd_mma_kernel(const Ar
       if (r < ng) dst = a.dgc + ((size_t)d * T * B + at) * H4 + (size_t)r * 8;
       else if (r < ng + n0) dst = a.dx[d][0] + at * E0 + (size_t)(r - ng) * 8;
       else dst = a.dx[d][1] + at * E1 + (size_t)(r - ng - n0) * 8;
-      *reinterpret_cast<uint4*>(dst) = zero;
+      *reinterpret_cast<uint4*>(dst) = zero16;
     }
   }
 
@@ -354,7 +376,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) bilstm_bwd_mma_kernel(const Ar
       }
       const uint32_t b_step = stages_u32 + st_off + b_gate;
       pipelined_rounds<GateFrag>(
-          K / 32,
+          Kp / 32,
           [&](GateFrag& f, int r) {
             ldmatrix_x4(f.b, b_step + (uint32_t)(r * 64));
 #pragma unroll
@@ -489,8 +511,9 @@ const char* bilstm_bwd_mma_error_string(int err) { return cudaGetErrorString((cu
 // dy streams); ny is the number of dy streams per direction (0-2); dhn / dcn
 // may be null (zero). Each of the G weight groups (B / G rows) is cut into
 // its own 8-row tiles: `tiles` = G * ceil(B / G / 8), and dbias_part is
-// (tiles, 2, 4H) f32. H % 16 == 0, H <= kMaxH, (E + H) % 32 == 0, E parts
-// multiples of 8. Returns a cudaError_t (0 on success).
+// (tiles, 2, 4H) f32. H % 8 == 0, H <= kMaxH, E parts multiples of 8 (the
+// gate product runs E + H to the next multiple of 32 over zero columns).
+// Returns a cudaError_t (0 on success).
 int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* lengths,
                    const void* w_ih, const void* w_hh, const void* bias, const void* hs_f,
                    const void* hs_b, const void* cs_f, const void* cs_b, const void* dyf0,
@@ -498,8 +521,8 @@ int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
                    const void* dcn, void* dxf0, void* dxf1, void* dxb0, void* dxb1, void* dgc,
                    void* dbias_part, int T_steps, int B, int H, int G, int tiles, int threads,
                    int smem, void* stream) {
-  if (H % 16 || H <= 0 || H > kMaxH || (E0 + E1 + H) % 32 || E0 % 8 || E1 % 8 || ny < 0 ||
-      ny > 2 || threads > kMaxThreads || threads < 32 * (H / 8))
+  if (H % 8 || H <= 0 || H > kMaxH || E0 % 8 || E1 % 8 || ny < 0 || ny > 2 ||
+      threads > kMaxThreads || threads < 32 * (H / 8))
     return (int)cudaErrorInvalidValue;
   auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   auto out = [](void* p) { return static_cast<bf16*>(p); };
@@ -524,8 +547,9 @@ int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = E0 + E1;
   // the model's layers (E = H below, E = 2H stacked) at its two widths, and
-  // layer 0 of the two-layer model at embedding 80
+  // layer 0 of the two-layer models at embedding 80 and 72
   if (H == 80 && E == 80) return launch<80, 80>(a, tiles, threads, smem, st);
+  if (H == 72 && E == 72) return launch<72, 72>(a, tiles, threads, smem, st);
   if (H == 64 && E == 64) return launch<64, 64>(a, tiles, threads, smem, st);
   if (H == 64 && E == 128) return launch<64, 128>(a, tiles, threads, smem, st);
   if (H == 32 && E == 32) return launch<32, 32>(a, tiles, threads, smem, st);

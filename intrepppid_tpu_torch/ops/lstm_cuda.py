@@ -189,7 +189,8 @@ SMEM_LIMIT = 232448
 # bilstm_bwd_f32_onestage.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH,
 # kStrideAlign, kStridePad),
 # lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
-# kMaxH, kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
+# kMaxH, kWPad, kFPad), lstm_recurrence_fwd_mma.cu (kMmaTile, kStages, kMaxH,
+# kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
 # kStridePad), bilstm_bwd_lite_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads,
@@ -223,7 +224,15 @@ BWD_MMA_MAX_CHUNKS, BWD_MMA_MAX_THREADS = 3, 384
 # MMA_MAX_H it takes E = H = 80 only, its <80, 80> instance (the shape
 # bilstm_bwd.cu took there: no layer changes its route or padded shape)
 BWD_MMA_MAX_H = 80
+# the widths at H % 16 == 8 the bf16 tensor-core sweep takes, at the shapes
+# bilstm_bwd.cu takes there (so again no layer changes its route or padded
+# shape): its gate product runs E + H to the next multiple of 32 over zero
+# columns of the resident weights and of the [x ; h] tile
+BWD_MMA_ODD_WIDTHS = (8, 24, 40, 56, 72)
 REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
+# the op's bf16 tensor-core forward at REC_MMA_WIDTHS
+# (lstm_recurrence_fwd_mma.cu): its cp.async stages of the xg and mask tiles
+REC_FWD_MMA_STAGES = 5
 # the f32 tensor-core sweep: [x ; h] chunks a thread copies per step, and
 # its weight / tile row stride K rounded up to 32 floats plus 8
 BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
@@ -353,6 +362,7 @@ _SIGNATURES = {
     "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
+    "lstm_recurrence_fwd_mma": ("lstm_recurrence_fwd_mma", [_P] * 7 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
     "bilstm_fwd_f32": ("bilstm_fwd_f32", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 8 + [_P]),
@@ -439,6 +449,9 @@ _CONSTANTS = {
                                  "lstm_recurrence_bwd_mma_f_pad"),
                                 (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
                                  REC_MMA_F32_PAD)),
+    "lstm_recurrence_fwd_mma": (tuple(f"lstm_recurrence_fwd_mma_{c}" for c in (
+        "tile", "stages", "max_h", "w_pad", "f_pad")),
+        (MMA_TILE, REC_FWD_MMA_STAGES, MMA_MAX_H, MMA_PAD, REC_MMA_F32_PAD)),
     "lstm_recurrence_wgrad": (("lstm_recurrence_wgrad_tile",), (WGRAD_TILE,)),
     "lstm_recurrence_wgrad_mma": (("lstm_recurrence_wgrad_mma_tile_m",
                                    "lstm_recurrence_wgrad_mma_tile_n",
@@ -619,22 +632,34 @@ def bwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
     """``(threads, smem_bytes)`` of the tensor-core sweep
     (``csrc/bilstm_bwd_mma.cu``) for a layer with ``ny`` dy streams per
     direction, or ValueError for a dtype or shape it does not take. It takes
-    bfloat16 with H in {16, 32, 48, 64} or E = H = ``BWD_MMA_MAX_H`` (80),
-    input parts that are multiples of 8 wide, and ``(E + H) % 32 == 0`` (its
-    products step K by 32)."""
+    bfloat16 with input parts that are multiples of 8 wide: H in {16, 32,
+    48, 64} or E = H = ``BWD_MMA_MAX_H`` (80) with ``(E + H) % 32 == 0`` (its
+    products step K by 32); and H in ``BWD_MMA_ODD_WIDTHS`` (8, 24, 40, 56,
+    72: H % 16 == 8) at the shapes ``bwd_launch_plan`` takes there, where
+    the gate product runs K = E + H to the next multiple of 32 over zero
+    columns inside the kernel."""
     E = sum(E_parts)
-    if (dtype != torch.bfloat16 or H % 16
-            or not (16 <= H <= MMA_MAX_H or H == E == BWD_MMA_MAX_H)
-            or any(e <= 0 or e % 8 for e in E_parts) or (E + H) % 32):
+    odd = H in BWD_MMA_ODD_WIDTHS
+    if (dtype != torch.bfloat16 or any(e <= 0 or e % 8 for e in E_parts)
+            or not (odd or (H % 16 == 0 and (E + H) % 32 == 0
+                            and (16 <= H <= MMA_MAX_H or H == E == BWD_MMA_MAX_H)))):
         raise ValueError(
             f"bilstm_bwd_mma kernel takes bfloat16 with H in {{16, 32, 48, {MMA_MAX_H}}} or "
-            f"E = H = {BWD_MMA_MAX_H}, input parts that are positive multiples of 8 and "
-            f"(E + H) % 32 == 0, got {dtype}, H={H}, E_parts={list(E_parts)}")
+            f"E = H = {BWD_MMA_MAX_H} and (E + H) % 32 == 0, or H in "
+            f"{set(BWD_MMA_ODD_WIDTHS)}, and input parts that are positive multiples of 8, got "
+            f"{dtype}, H={H}, E_parts={list(E_parts)}")
+    if odd:
+        try:
+            bwd_launch_plan(E_parts, H, dtype)
+        except ValueError as e:
+            raise ValueError(f"bilstm_bwd_mma kernel takes bfloat16 at H={H} (H % 16 == 8) only "
+                             f"at the shapes bilstm_bwd.cu takes there: {e}") from None
     # one warp per 8 hidden units; the dx columns past the first H go to
     # extra warps, 16 columns each
     threads = 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2))
     chunks = MMA_TILE * (E + (2 + ny) * H) // 8
-    ks, hs, gs = E + H + MMA_PAD, H + MMA_PAD, 4 * H + MMA_PAD
+    # the [W_ih | W_hh] rows and the [x ; h] tile run to K rounded up to 32
+    ks, hs, gs = -(-(E + H) // 32) * 32 + MMA_PAD, H + MMA_PAD, 4 * H + MMA_PAD
     smem = (_a16(4 * H * ks * 2) + _a16(2 * MMA_TILE * gs * 2)
             + MMA_STAGES * MMA_TILE * 2 * (ks + (1 + ny) * hs))
     if threads > BWD_MMA_MAX_THREADS or chunks > BWD_MMA_MAX_CHUNKS * threads \
@@ -717,7 +742,8 @@ def bwd_f32_onestage_plan(E_parts: Sequence[int], H: int,
 def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's sweep takes for a layer, by shape and
     dtype alone, the first whose plan fits: ``"bilstm_bwd_mma"``
-    (``bwd_mma_plan``: bf16, H <= 64 and E = H = 80), ``"bilstm_bwd_f32"``
+    (``bwd_mma_plan``: bf16, H <= 64, E = H = 80 and, at H % 16 == 8, the
+    shapes ``bilstm_bwd.cu`` took there), ``"bilstm_bwd_f32"``
     (``bwd_f32_plan``: f32, H <= 64), ``"bilstm_bwd_f32_onestage"``
     (``bwd_f32_onestage_plan``: f32 past bilstm_bwd_f32.cu's shared memory,
     E = H = 80), ``"bilstm_bwd"`` (``bwd_launch_plan``: the CUDA cores, the
@@ -1478,7 +1504,12 @@ def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_
 def _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel: Optional[str]) -> str:
     if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma", "bilstm_fwd_f32"):
         raise ValueError(f"bilstm_layer_fwd: no forward kernel named {kernel!r}")
-    return kernel or fwd_kernel([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+    E_parts, H = [p.shape[-1] for p in x_parts], w_hh.shape[-1]
+    if kernel == "bilstm_fwd" and compute_dtype == torch.float32 and H > MMA_MAX_H \
+            and fwd_kernel(E_parts, H, compute_dtype) == "bilstm_fwd_f32":
+        raise ValueError("bilstm_layer_fwd: csrc/bilstm_fwd.cu is not asked for by name where "
+                         f"the f32 tensor-core forward takes H={H} past {MMA_MAX_H}")
+    return kernel or fwd_kernel(E_parts, H, compute_dtype)
 
 
 def bilstm_layer_fwd(
@@ -1504,8 +1535,9 @@ def bilstm_layer_fwd(
     shapes and dtype: a tensor-core one through :func:`bilstm_layer_fwd_mma`
     (bf16) or :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` then
     counts it, or ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks
-    for the latter by name (to time it beside the others); a shape it does
-    not take raises.
+    for the latter by name (to time it beside the others; not in f32 at
+    H = 80, where the f32 tensor-core forward took over); a shape it does not
+    take raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
@@ -1715,7 +1747,8 @@ def bilstm_bwd(
     whose ``.launches`` then counts it, or ``csrc/bilstm_bwd.cu`` here.
     ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
     the others; not in bf16 at E = H = 80, where the tensor-core sweep's
-    <80, 80> instance took over); a shape it does not take raises."""
+    <80, 80> instance took over; at H % 16 == 8 in bf16 still); a shape it
+    does not take raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1726,7 +1759,7 @@ def bilstm_bwd(
         dyf, dyb, dhn, dcn, cd)
     if kernel not in (None, "bilstm_bwd", *_TILE_SWEEPS):
         raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
-    if kernel == "bilstm_bwd" and cd == torch.bfloat16 and H > MMA_MAX_H \
+    if kernel == "bilstm_bwd" and cd == torch.bfloat16 and H == BWD_MMA_MAX_H \
             and sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma":
         raise ValueError("bilstm_bwd: csrc/bilstm_bwd.cu is not asked for by name where the "
                          f"bf16 tensor-core sweep takes H={H} past {MMA_MAX_H}")
@@ -1841,8 +1874,9 @@ def bilstm_bwd_mma(
     """One layer's backward sweep on the tensor cores
     (``csrc/bilstm_bwd_mma.cu``); the contract of
     ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
-    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64 and E = H =
-    80) and raises for the rest. Row tiles are cut inside each weight group, so nothing is
+    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64, E = H = 80
+    and at H % 16 == 8 the shapes of ``bilstm_bwd.cu``) and raises for the
+    rest. Row tiles are cut inside each weight group, so nothing is
     padded. Its outputs carry no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too: ``BiLSTMStack`` is the way
     in."""
@@ -2422,8 +2456,8 @@ def bilstm_bwd_lite(
     or :func:`bilstm_bwd_lite_f32_resident` (f32 at 96; their ``.launches``
     then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
     ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128
-    and 256 and in f32 at 96 (to time it beside the others); it takes no
-    width past 256 and no f32 width of the cluster f32 sweep."""
+    and 256 (to time it beside the others); it takes no width past 256 and
+    no f32 width of the f32 tensor-core sweeps (128, 256, 288 and 96)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
@@ -2439,9 +2473,10 @@ def bilstm_bwd_lite(
         return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
                                    dcn, cd)
     H = xg.shape[-1] // 4
-    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in LITE_F32_WIDTHS):
+    f32_widths = LITE_F32_WIDTHS + LITE_F32_RESIDENT_WIDTHS
+    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in f32_widths):
         raise ValueError(f"bilstm_bwd_lite: csrc/bilstm_bwd_lite.cu takes H <= "
-                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(LITE_F32_WIDTHS)}, "
+                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(f32_widths)}, "
                          f"got {cd}, H={H}")
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
                                            cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
@@ -2801,9 +2836,10 @@ def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
         raise ValueError(
             f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {REC_MAX_H}}} "
             f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the weight "
-            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweeps "
-            f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}, and "
-            f"lstm_recurrence_bwd_f32 float32 there), got H={H}, {compute_dtype}")
+            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweep "
+            f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}, as does the "
+            f"forward lstm_recurrence_fwd_mma, and lstm_recurrence_bwd_f32 float32 there), got "
+            f"H={H}, {compute_dtype}")
 
 
 def recurrence_wide_mma_check(H: int, compute_dtype: torch.dtype) -> None:
@@ -2832,12 +2868,17 @@ def recurrence_wide_f32_check(H: int, compute_dtype: torch.dtype) -> None:
 
 def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's forward takes, by width and compute
-    dtype alone: past ``WIDE_MAX_THREADS`` units the tensor-core ones,
+    dtype alone: bfloat16 at H = 32 or 64 the tensor-core
+    ``"lstm_recurrence_fwd_mma"`` (one block per 8-row tile); past
+    ``WIDE_MAX_THREADS`` units the tensor-core ones,
     ``"lstm_recurrence_fwd_wide_mma"`` for bfloat16 and
     ``"lstm_recurrence_fwd_wide_f32"`` (three tf32 passes) for float32; the
-    cluster kernel ``"lstm_recurrence_fwd"`` for the rest (up to 288);
-    ValueError for what none takes (``recurrence_check``)."""
+    cluster kernel ``"lstm_recurrence_fwd"`` for the rest (float32 up to
+    288, bfloat16 from 96 to 288); ValueError for what none takes
+    (``recurrence_check``)."""
     recurrence_check(H, compute_dtype)
+    if H in REC_MMA_WIDTHS and compute_dtype == torch.bfloat16:
+        return "lstm_recurrence_fwd_mma"
     if H > WIDE_MAX_THREADS:
         return "lstm_recurrence_fwd_wide_mma" if compute_dtype == torch.bfloat16 \
             else "lstm_recurrence_fwd_wide_f32"
@@ -3013,22 +3054,25 @@ def lstm_recurrence_fwd(
 
     On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
     for its width and dtype: a tensor-core one through
-    :func:`lstm_recurrence_fwd_wide_mma` or :func:`lstm_recurrence_fwd_wide_f32`
-    (whose ``.launches`` then counts it; ``wf``, the f32 fragment copy
-    ``recurrence_f32_weights(w)`` where the caller has it, goes to the
-    latter), or the cluster kernel here (up to 288 units).
-    ``kernel="lstm_recurrence_fwd"`` asks for the latter by name (to time it
-    beside the others).
+    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_wide_mma` or
+    :func:`lstm_recurrence_fwd_wide_f32` (whose ``.launches`` then counts it;
+    ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where the
+    caller has it, goes to the last), or the cluster kernel here (up to 288
+    units). ``kernel="lstm_recurrence_fwd"`` asks for the latter by name (to
+    time it beside the others).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_fwd"
-    if kernel not in (None, name, "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_fwd_wide_f32"):
+    if kernel not in (None, name, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd_wide_mma",
+                      "lstm_recurrence_fwd_wide_f32"):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
     kernel = kernel or recurrence_fwd_kernel(H, cd)
+    if kernel == "lstm_recurrence_fwd_mma":
+        return lstm_recurrence_fwd_mma(xg, valid, w, G, cd)
     if kernel == "lstm_recurrence_fwd_wide_mma":
         return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd)
     if kernel == "lstm_recurrence_fwd_wide_f32":
@@ -3053,6 +3097,43 @@ def lstm_recurrence_fwd(
 
 
 lstm_recurrence_fwd.launches = 0
+
+
+def lstm_recurrence_fwd_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward on the tensor cores at H = 32 and 64
+    (``csrc/lstm_recurrence_fwd_mma.cu``: one block per 8-row tile and
+    direction, no cluster, ``w`` resident as the warps' mma fragments); the
+    contract of :func:`lstm_recurrence_fwd`. Takes bfloat16 at H in
+    ``REC_MMA_WIDTHS`` and raises for the rest. On the CPU the plain twin;
+    under grad mode an operand that requires grad is refused."""
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_fwd_mma"
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    if recurrence_fwd_kernel(H, cd) != name:
+        raise ValueError(f"{name} kernel takes compute dtype bfloat16 with H in "
+                         f"{set(REC_MMA_WIDTHS)}, got H={H}, {cd}")
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd_mma(
+            xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, mma_tiles(B, G),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd_mma.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd_mma.launches = 0
 
 
 def lstm_recurrence_fwd_wide_mma(

@@ -64,7 +64,7 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
                        "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
-                       "bilstm_bwd_lite_f32_resident"}
+                       "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -81,6 +81,7 @@ def test_every_kernel_source_is_built_and_bound():
         assert len(getters) == len(want)
         assert all(f"int {g}()" in text for g in getters), name
     for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
+                      ("lstm_recurrence_fwd_mma", "mma_bf16("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
                       ("bilstm_gates_mma", "mma_bf16("), ("bilstm_gates_f32", "mma_tf32("),

@@ -457,7 +457,16 @@ def test_recurrence_check(H, dtype, ok):
         ([80], 80, torch.bfloat16, "bilstm_bwd_mma"),  # its <80, 80> instance
         ([40, 40], 80, torch.bfloat16, "bilstm_bwd_mma"),
         ([40], 80, torch.bfloat16, "bilstm_bwd"),  # E != H past 64: the CUDA cores
-        ([72], 72, torch.bfloat16, "bilstm_bwd"),  # H % 16 != 0
+        ([72], 72, torch.bfloat16, "bilstm_bwd_mma"),  # H % 16 == 8: its <72, 72> instance
+        ([8], 8, torch.bfloat16, "bilstm_bwd_mma"),  # K = 16 run as 32
+        ([8, 8], 8, torch.bfloat16, "bilstm_bwd_mma"),
+        ([24, 24], 24, torch.bfloat16, "bilstm_bwd_mma"),  # K = 72 run as 96
+        ([40], 40, torch.bfloat16, "bilstm_bwd_mma"),
+        ([120], 40, torch.bfloat16, "bilstm_bwd_mma"),
+        ([56, 56], 56, torch.bfloat16, "bilstm_bwd_mma"),
+        ([16, 16], 16, torch.bfloat16, "bilstm_bwd"),  # H % 16 == 0 and K = 48: the CUDA cores
+        ([8], 16, torch.bfloat16, "bilstm_bwd"),
+        ([72], 72, torch.float32, "bilstm_bwd"),  # f32 keeps the CUDA cores at 72
         ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
         ([64], 60, torch.bfloat16, None),
         ([48], 80, torch.bfloat16, None),   # no E but 80 past H = 64; bilstm_bwd.cu neither
@@ -485,7 +494,10 @@ def test_sweep_kernel_leaves_the_wide_route_alone():
 @pytest.mark.parametrize("E_parts,H,ny,threads", [([64], 64, 2, 256), ([64, 64], 64, 1, 384),
                                                   ([32], 32, 2, 128), ([32, 32], 32, 0, 192),
                                                   ([16, 16], 32, 1, 128), ([80], 80, 2, 320),
-                                                  ([40, 40], 80, 1, 320)])
+                                                  ([40, 40], 80, 1, 320), ([72], 72, 2, 288),
+                                                  ([8], 8, 2, 32), ([16, 16], 8, 1, 96),
+                                                  ([24, 24], 24, 0, 160), ([40], 40, 2, 160),
+                                                  ([120], 40, 1, 320), ([56, 56], 56, 2, 352)])
 def test_bwd_mma_plan(E_parts, H, ny, threads):
     """One warp per 8 hidden units, one more per 16 dx columns past the
     first H; the block's tile chunks and shared memory within the kernel's
@@ -522,9 +534,11 @@ def test_bwd_mma_plan_at_80():
     assert lstm_cuda.bwd_mma_plan([40, 40], 80, torch.bfloat16) == (320, 138752)
     assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
     assert lstm_cuda.BWD_MMA_MAX_H == 80 and lstm_cuda.MMA_MAX_H == 64
-    for E_parts, H in (([48], 80), ([16], 80), ([112], 80), ([96], 96), ([80], 96), ([72], 72)):
+    for E_parts, H in (([48], 80), ([16], 80), ([112], 80), ([96], 96), ([80], 96)):
         with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
             lstm_cuda.bwd_mma_plan(E_parts, H, torch.bfloat16)
+    # E = H = 72 (H % 16 == 8) is taken since, by its own instance
+    assert lstm_cuda.bwd_mma_plan([72], 72, torch.bfloat16) == (288, 125824)
     # the f32 sweep keeps its cap; the f32 forward has a cap of its own (80)
     with pytest.raises(ValueError, match="bilstm_bwd_f32 kernel takes float32"):
         lstm_cuda.bwd_f32_plan([80], 80, torch.float32)
@@ -532,6 +546,48 @@ def test_bwd_mma_plan_at_80():
     for dtype in (torch.float32, torch.bfloat16):
         assert lstm_cuda.padded_width([48], 80, dtype) == 80
     assert lstm_cuda.padded_parts([48], 80, torch.bfloat16) == (80,)
+
+
+def test_bwd_mma_plan_at_h_mod_16_eq_8():
+    """At H % 16 == 8 the tensor-core sweep takes the shapes ``bilstm_bwd.cu``
+    takes there (so no layer changes its route or padded shape) and runs the
+    gate product's K = E + H to the next multiple of 32 over zero columns:
+    at E = H = 72 (layer 0 of the two-layer model at embedding 72) 9 warps,
+    K = 144 run as 160, shared memory for the resident weights (288
+    permuted rows of 160 + 8), two dgates tiles (8 rows of 288 + 8) and
+    three stages of the [x ; h] tile (8 rows of 168), c_prev and two dy
+    tiles: 125,824 B. The shapes the CUDA-core sweep refuses at these widths
+    stay refused (the stacked layer at 72, E = 144, runs wide at 96), and
+    f32 keeps its own kernels."""
+    bf16 = torch.bfloat16
+    assert lstm_cuda.BWD_MMA_ODD_WIDTHS == (8, 24, 40, 56, 72)
+    threads, smem = lstm_cuda.bwd_mma_plan([72], 72, bf16)
+    assert threads == 288 and 72 + 4 * 72 <= lstm_cuda.BWD_MMA_MAX_CHUNKS * threads
+    assert smem == 288 * 168 * 2 + 2 * 8 * 296 * 2 + 3 * 8 * 2 * (168 + 3 * 80) == 125824
+    for H in lstm_cuda.BWD_MMA_ODD_WIDTHS:
+        for E_parts in ([H], [H, H], [2 * H], [3 * H], [4 * H], [8 * H]):
+            try:
+                lstm_cuda.bwd_launch_plan(E_parts, H, bf16)
+            except ValueError:
+                with pytest.raises(ValueError, match="only at the shapes bilstm_bwd.cu takes"):
+                    lstm_cuda.bwd_mma_plan(E_parts, H, bf16)
+                continue
+            threads, smem = lstm_cuda.bwd_mma_plan(E_parts, H, bf16)
+            Kp = -(-(sum(E_parts) + H) // 32) * 32
+            assert threads >= 4 * H and smem <= lstm_cuda.SMEM_LIMIT
+            assert smem == (4 * H * (Kp + 8) * 2 + 2 * 8 * (4 * H + 8) * 2
+                            + 3 * 8 * 2 * (Kp + 8 + 3 * (H + 8)))
+            assert lstm_cuda.sweep_kernel(E_parts, H, bf16) == "bilstm_bwd_mma"
+        with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+            lstm_cuda.bwd_mma_plan([H], H, torch.float32)
+    assert lstm_cuda.layer_route([72, 72], 72, bf16) == "wide"
+    assert (lstm_cuda.padded_width([72, 72], 72, bf16),
+            lstm_cuda.padded_parts([72, 72], 72, bf16)) == (96, (80, 80))
+    # H % 16 == 0 keeps its rule: K = E + H a multiple of 32, else the CUDA cores
+    for E_parts, H in (([16, 16], 16), ([8], 16), ([24], 48)):
+        with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+            lstm_cuda.bwd_mma_plan(E_parts, H, bf16)
+        assert lstm_cuda.sweep_kernel(E_parts, H, bf16) == "bilstm_bwd"
 
 
 def test_mma_tiles_are_cut_inside_each_weight_group():
@@ -641,7 +697,9 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
 
 
 @pytest.mark.parametrize("H,dtype,kernel", [
-    (32, torch.bfloat16, "lstm_recurrence_fwd"), (64, torch.float32, "lstm_recurrence_fwd"),
+    (32, torch.bfloat16, "lstm_recurrence_fwd_mma"), (64, torch.float32, "lstm_recurrence_fwd"),
+    (64, torch.bfloat16, "lstm_recurrence_fwd_mma"), (32, torch.float32, "lstm_recurrence_fwd"),
+    (96, torch.bfloat16, "lstm_recurrence_fwd"),
     (256, torch.bfloat16, "lstm_recurrence_fwd"), (288, torch.bfloat16, "lstm_recurrence_fwd"),
     (288, torch.float32, "lstm_recurrence_fwd"),
     (320, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
@@ -653,10 +711,11 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     (1024, torch.float32, "lstm_recurrence_fwd_wide_f32"),
     (48, torch.bfloat16, None), (64, torch.float16, None), (1056, torch.bfloat16, None)])
 def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
-    """The forward's picker, by width and dtype alone: past 288 the
+    """The forward's picker, by width and dtype alone: bf16 at H = 32 and 64
+    the tensor-core forward with one block a row tile; past 288 the
     tensor-core forwards, bf16 and (three tf32 passes) f32, up to the op's
-    1024 on the card; the cluster kernel for the rest; what none takes is
-    refused by the op's check."""
+    1024 on the card; the cluster kernel for the rest (f32 up to 288, bf16
+    from 96); what none takes is refused by the op's check."""
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
             lstm_cuda.recurrence_fwd_kernel(H, dtype)
@@ -667,12 +726,37 @@ def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
                    lstm_cuda.REC_WIDE_F32_FWD_ROWS[1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("H,D", [(32, 1), (64, 2), (64, 3)])
+def test_recurrence_fwd_mma_wrapper_takes_plain_version_on_cpu(H, D):
+    """The bf16 tensor-core forward at H = 32 / 64 takes the plain twin for
+    CPU tensors bit for bit, counting no launch, and so does the op's
+    forward by each of its names; under grad mode an operand that requires
+    grad is refused."""
+    T, B, G, cd = 5, 6, 2, torch.bfloat16
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mma, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    for mask in ("lengths", "holes"):
+        xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), mask,
+                                                seed=H + D)
+        want = recurrence_fwd(xg, valid, w, G, cd)
+        for got in (lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd),
+                    *(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=k)
+                      for k in (None, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd"))):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd_mma(xg.clone().requires_grad_(), valid, w, G, cd)
+    with torch.no_grad():
+        lstm_cuda.lstm_recurrence_fwd_mma(xg.clone().requires_grad_(), valid, w, G, cd)
+
+
 def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
     and bf16 names the forward, sweep and wgrad it named before the
-    tensor-core kernels past 288, except the bf16 forward and sweep there
-    and the f32 forward and sweep there (three tf32 passes); what was
-    refused stays refused."""
+    tensor-core kernels past 288, except the bf16 forward and sweep there,
+    the f32 forward and sweep there (three tf32 passes) and the bf16
+    forward at 32 and 64 (the tensor-core one with one block a row tile);
+    what was refused stays refused."""
     def parent(H, dtype):
         sweep = "lstm_recurrence_bwd"
         if H in (32, 64):
@@ -696,6 +780,8 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
                 want = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma", want[2])
             if dtype == torch.float32 and H > 288:
                 want = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32", want[2])
+            if dtype == torch.bfloat16 and H in (32, 64):
+                want = ("lstm_recurrence_fwd_mma",) + want[1:]
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
 
 
@@ -2408,11 +2494,11 @@ def test_recurrence_kernels_match_plain_on_card(cuda_device, dtype, H, G, B, D, 
             assert float((a.float() - b.float()).abs().max()) <= tol * max(
                 1.0, float(b.float().abs().max()))
 
-    # the sweep's and wgrad's launches count on the wrapper of the kernel the
-    # dispatch names
+    # the launches count on the wrapper of the kernel the dispatch names
+    fwd = getattr(lstm_cuda, lstm_cuda.recurrence_fwd_kernel(H, dtype))
     sweep = getattr(lstm_cuda, lstm_cuda.recurrence_sweep_kernel(H, dtype))
     wgrad = getattr(lstm_cuda, lstm_cuda.recurrence_wgrad_kernel(H, dtype))
-    wrappers = (lstm_cuda.lstm_recurrence_fwd, sweep, wgrad)
+    wrappers = (fwd, sweep, wgrad)
     before = [f.launches for f in wrappers]
     ref = recurrence_fwd(xg, valid, w, G, dtype)
     close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, dtype), ref)
@@ -2536,6 +2622,134 @@ def test_recurrence_sweep_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, 
     _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 3e-2)
     torch.cuda.synchronize()
     assert lstm_cuda.lstm_recurrence_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("T", [24, 3, 1])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (64, 2, 20, 1),
+                                     (64, 1, 9, 3), (32, 3, 24, 2), (32, 1, 13, 1),
+                                     (32, 5, 35, 3), (64, 5, 400, 2)])
+def test_recurrence_fwd_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, mask):
+    """The tensor-core recurrence forward against its plain twin in bf16 at
+    3e-2 x max(1, max|ref|): masks from lengths and with holes, D = 1, 2
+    and 3, G = 1, 2, 3 and 5 (groups of 12, 50, 10, 9, 8, 13, 7 and 80 rows:
+    a short last tile inside most groups), T = 1, 3 and 24. The dispatch
+    hands ``lstm_recurrence_fwd`` to it and its wrapper counts the launches;
+    the cluster kernel asked for by name agrees too."""
+    cd = torch.bfloat16
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=T + B + H)
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mma"
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mma, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    _close(lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd), want, 3e-2)
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd), want, 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
+           want, 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+def test_recurrence_fwd_mma_at_the_main_path_shape_on_card(cuda_device, mask):
+    """The recurrence backend's forward in the manuscript step: H = 64,
+    D = 2, 400 rows in 5 groups, T = 1500, against the plain twin at 3e-2 x
+    max(1, max|ref|); the same bits twice."""
+    cd, T, D, B, H, G = torch.bfloat16, 1500, 2, 400, 64, 5
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=64)
+    got = lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b)
+               for a, b in zip(lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd), got))
+    _close(got, recurrence_fwd(xg, valid, w, G, cd), 3e-2)
+
+
+@pytest.mark.cuda
+def test_recurrence_fwd_mma_edges_on_card(cuda_device):
+    """An empty batch and T = 0 launch nothing (zero final states); f32
+    operands, H = 96 and an operand that requires grad raise in the wrapper
+    (nothing falls back)."""
+    cd = torch.bfloat16
+    xg, valid, w, _, _, _ = recurrence_case(4, 2, 10, 64, 2, cd, cuda_device, "holes")
+    before = lstm_cuda.lstm_recurrence_fwd_mma.launches
+    hs, cs, hn, cn = lstm_cuda.lstm_recurrence_fwd_mma(xg[:, :, :0].contiguous(),
+                                                       valid[:, :, :0], w, 2, cd)
+    assert hs.shape == (4, 2, 0, 64) and hn.shape == (2, 0, 64)
+    hs, cs, hn, cn = lstm_cuda.lstm_recurrence_fwd_mma(xg[:0].contiguous(), valid[:0], w, 2, cd)
+    torch.cuda.synchronize()
+    assert hs.shape == (0, 2, 10, 64) and not hn.any() and not cn.any()
+    assert lstm_cuda.lstm_recurrence_fwd_mma.launches == before
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_mma kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w.float(), 2, torch.float32)
+    wide = recurrence_case(4, 2, 10, 96, 2, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_mma kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_fwd_mma(wide[0], wide[1], wide[2], 2, cd)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd_mma(xg.clone().requires_grad_(), valid, w, 2, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,ny,final", [
+    ([8], 8, 5, 30, 2, True), ([16], 8, 1, 13, 1, False), ([8, 8], 8, 3, 27, 0, True),
+    ([32], 8, 2, 18, 2, False), ([16, 16], 8, 1, 9, 1, True), ([24], 24, 5, 60, 2, True),
+    ([48], 24, 1, 13, 0, False), ([24, 24], 24, 3, 24, 1, True), ([40], 40, 4, 20, 2, False),
+    ([80], 40, 1, 11, 1, True), ([40, 40], 40, 2, 22, 2, True), ([120], 40, 1, 10, 0, False),
+    ([56], 56, 5, 30, 1, True), ([112], 56, 1, 13, 2, False), ([56, 56], 56, 3, 27, 2, True),
+    ([72], 72, 5, 30, 2, True), ([72], 72, 1, 13, 0, False), ([72], 72, 3, 27, 1, True)])
+def test_sweep_mma_at_h_mod_16_eq_8_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny,
+                                                          final):
+    """The tensor-core sweep at every shape it took over from
+    ``bilstm_bwd.cu`` at H % 16 == 8 (H = 8, 24, 40, 56, 72; layer 0 and the
+    stacked layer, E + H padded to a multiple of 32 inside the kernel)
+    against its plain twin in bf16 at 3e-2 x max(1, max|ref|): 1 and 2
+    input parts, 0-2 dy streams, with and without final-state cotangents,
+    groups of 6 to 13 rows (short tiles inside each group), rows 8-15 short
+    of T. The dispatch hands ``bilstm_bwd`` to it; ``bilstm_bwd.cu`` asked
+    for by name agrees too."""
+    cd = torch.bfloat16
+    assert lstm_cuda.sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma"
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B + H)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches)
+    _close(flat(lstm_cuda.bilstm_bwd_mma(*args)), flat(want), 3e-2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
+        before[0], before[1] + 2)
+    _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 3e-2)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_sweep_mma_at_72_at_the_main_path_shape_on_card(cuda_device):
+    """Layer 0 of the bf16 two-layer model at embedding 72: E = H = 72, 400
+    rows in 5 groups, T = 1500, two dy streams a direction, the main path's
+    lengths (groups at 0, 1 and T, the rest random), against the plain twin
+    at 3e-2 x max(1, max|ref|); the same bits twice."""
+    cd, T, B, G = torch.bfloat16, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [72], 72, G, cd,
+                                                                 cuda_device, seed=72)
+    lengths = _main_path_lengths(lengths, G, T)
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
+                                                                    bias, cd)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            cd)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    got = flat(lstm_cuda.bilstm_bwd_mma(*args))
+    assert all(torch.equal(a, b) for a, b in zip(flat(lstm_cuda.bilstm_bwd_mma(*args)), got))
+    _close(got, flat(bidir_layer_sweep(*args)), 3e-2)
 
 
 @pytest.mark.cuda
@@ -3313,6 +3527,9 @@ def test_recurrence_wide_mma_rejects_bad_operands_on_card(cuda_device):
         lstm_cuda.lstm_recurrence_bwd_wide_mma(xg, valid[:, :1], w, hs, hs, None, None, None,
                                                G, cd)
     with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_fast")
+    # the tensor-core forward with one block a row tile takes H = 32 and 64 alone
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_mma kernel takes compute dtype"):
         lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_mma")
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.lstm_recurrence_bwd_wide_mma(xg.clone().requires_grad_(), valid, w, hs, hs,
@@ -4116,7 +4333,8 @@ def test_fwd_f32_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B):
     5, 6, 9, 11 and 13 rows (short tiles inside each group), groups at
     lengths 0, 1 and T, rows of length 0, 1 and T and rows 8-15 short of T;
     the dispatch names it and its wrappers count the launches; the CUDA-core
-    forward by name agrees too."""
+    forward is not asked for by name there (refused: the f32 tensor-core
+    forward took its route)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd, H = torch.float32, 80
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
@@ -4133,10 +4351,11 @@ def test_fwd_f32_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B):
     _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 1e-4)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
-    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 1e-4)
-    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 1e-4)
+    for fwd in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd):
+        with pytest.raises(ValueError, match="not asked for by name where the f32 tensor-core"):
+            fwd(*args, kernel="bilstm_fwd")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
 
 
 @pytest.mark.cuda
@@ -4170,7 +4389,8 @@ def test_lite_f32_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     9, 12 and 11 rows (short tiles inside each group), groups at lengths 0,
     1 and T, rows of length 0, 1 and T and rows 8-15 short of T (a tile
     that stops early). The dispatch names it and its wrapper counts the
-    launches; ``bilstm_bwd_lite.cu`` by name agrees too."""
+    launches; ``bilstm_bwd_lite.cu`` is not asked for by name there (refused:
+    the one-block sweep took its route)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd, H = torch.float32, 96
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
@@ -4187,9 +4407,10 @@ def test_lite_f32_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
     _close([lstm_cuda.bilstm_bwd_lite_f32_resident(*args)], [want], 1e-4)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 1e-4)
+    with pytest.raises(ValueError, match="and f32 outside"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda

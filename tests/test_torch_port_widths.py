@@ -276,6 +276,48 @@ def test_the_f32_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mon
     assert after["train stacked", 80][3][2] == "bilstm_bwd_lite_f32_resident"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_bf16_sweep_at_h_mod_16_eq_8_changes_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the bf16 tensor-core sweep took H % 16 == 8 (the plans with
+    ``BWD_MMA_ODD_WIDTHS`` = ()), and the same kernel at every step, except
+    one, in bf16: the resident sweep at Hp = 8, 24, 40, 56 (layer 0 and the
+    stacked layer) and 72 (layer 0: the model at embedding 72) is
+    ``bilstm_bwd_mma`` where it was ``bilstm_bwd``. f32 changes nothing, and
+    in bf16 the CUDA-core sweep keeps the resident layers at H = 16 whose
+    E + H is not a multiple of 32."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "BWD_MMA_ODD_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
+            assert not diff, key
+    if dtype == torch.float32:
+        assert changed == {}
+        return
+    assert changed == {("bilstm_bwd", "bilstm_bwd_mma"): {
+        ("resident", H, Ep) for H in (8, 24, 40, 56) for Ep in ((H,), (H, H))}
+        | {("resident", 72, (72,))}}
+    # the model at embedding 72: layer 0 on the tensor-core sweep, the stacked
+    # layer on the wide route at 96 as before
+    assert after["train layer 0", 72][3][1] == "bilstm_bwd_mma"
+    assert after["train stacked", 72][:3] == ("wide", 96, (80, 80))
+    assert {(Hp, Ep) for route, Hp, Ep, kernels in after.values()
+            if route == "resident" and kernels[1] == "bilstm_bwd"} == {(16, (8,)), (16, (16, 16))}
+
+
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
     ([80], 80, torch.float32, 80, "resident"),     # the one-stage f32 sweep
     ([80], 80, torch.bfloat16, 80, "resident"),    # the tensor-core sweep at E = H = 80
