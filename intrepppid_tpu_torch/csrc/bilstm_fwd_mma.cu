@@ -1,5 +1,5 @@
-// Bidirectional LSTM layer forward, bf16 compute dtype, H <= 64: the
-// tensor-core variant, hand-written for Hopper (sm_90a).
+// Bidirectional LSTM layer forward, bf16 compute dtype, H <= 64 and
+// E = H = 72, 80: the tensor-core variant, hand-written for Hopper (sm_90a).
 //
 // Replaces, like bilstm_fwd_f32.cu (f32) and bilstm_fwd.cu (which keeps the
 // bf16 shapes this kernel is not instantiated for), the
@@ -8,8 +8,9 @@
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states
 //     False (eval variant) and True (train variant, which also emits the
 //     cell stream for the backward);
-//   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas)
-//     -- the same function at the other resident widths.
+//   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas,
+//     :376) -- the same function at the other resident widths, layer 0 of
+//     the two-layer models at embedding 72 and 80 among them.
 // f32 at these widths goes to bilstm_fwd_f32.cu, in three tf32 passes: one
 // pass, with tf32's 10-bit mantissa, breaks the serve path's 1e-4
 // agreement with the plain forward.
@@ -50,6 +51,26 @@
 //   * a tile stops at its longest row: past it the forward direction's
 //     state is frozen (its final h and c are written there), and the
 //     reverse direction has not started (zeros).
+// At E = H = 80 and 72 (layer 0 of the two-layer models at embedding 80
+// and 72; ops/lstm_cuda.py:fwd_mma_plan takes them only where bilstm_fwd.cu
+// took them, so no layer changes its route or padded shape) three things
+// differ from the widths up to 64:
+//   * threads: one warp per 8 units is 4H = 320 and 288 threads, past the
+//     256 of the smaller instances. Each instance's __launch_bounds__ is its
+//     own block (4H threads, one block an SM), so the 320-thread one may
+//     take 204 registers a thread and the others keep 255. The weights' A
+//     fragments are 2 m16 tiles x K/16 x 4 = 80 registers at K = 160 and 72
+//     at K = 144 (the -Xptxas -v summary of the build reports registers and
+//     spills);
+//   * the K tail at 72: E + H = 144 is nine k16 steps, not a whole number
+//     of 32. The product steps k16 natively (four ldmatrix.x4 rounds and
+//     one ldmatrix.x2 step), where bilstm_bwd_mma.cu runs K to 160 over
+//     zero columns: here the weights sit in registers, so a zero k16 step
+//     would cost 8 registers and one mma a step for nothing, and the [x ;
+//     h] rows stay 144 + 8 wide (304 bytes: ldmatrix stays conflict-free);
+//   * the grid: 400 rows in 5 groups of 80 are 50 tiles, 100 blocks with
+//     both directions, one wave on 132 SMs; the three-stage ring and its one
+//     barrier a step are unchanged (8 x (K + 8) x 2 x 3 = 8,064 bytes at 80).
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -61,7 +82,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kStages = 3;
 constexpr int kMaxChunks = 2;   // 16-byte x chunks each thread copies per step
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 320;  // the <80, 80> instance: one warp per 8 units
 constexpr int kPad = 8;         // bf16 elements of padding on every shared row
 
 // Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
@@ -88,9 +109,11 @@ struct Args {
 
 // grid (tiles, 2), block 32 * H / 8 threads.
 template <int H, int E>
-__global__ void __launch_bounds__(kMaxThreads, 1) bilstm_fwd_mma_kernel(const Args a) {
+__global__ void __launch_bounds__(4 * H, 1) bilstm_fwd_mma_kernel(const Args a) {
   constexpr int H4 = 4 * H, K = E + H, KS = K + kPad, NK = K / 16;
-  static_assert(H % 16 == 0 && H <= 64 && E % 8 == 0 && K % 16 == 0, "unsupported shape");
+  static_assert(H % 8 == 0 && 4 * H <= kMaxThreads && E % 8 == 0 && K % 16 == 0 &&
+                    kMmaTile * E / 8 <= kMaxChunks * 4 * H,
+                "unsupported shape");
   const int tile = blockIdx.x, d = blockIdx.y, T = a.T, B = a.B;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -299,8 +322,8 @@ const char* bilstm_fwd_mma_error_string(int err) { return cudaGetErrorString((cu
 // without the dtype code and the row plan: x1 may be null (E1 = 0); cs_f /
 // cs_b null selects the eval variant. Each of the G weight groups (B / G
 // rows) is cut into its own 8-row tiles: `tiles` = G * ceil(B / G / 8);
-// threads = 4H. (H, E0 + E1) is one of the instantiated shapes below, input
-// parts multiples of 8. Returns a cudaError_t (0 on success).
+// threads = 4H (at most kMaxThreads). (H, E0 + E1) is one of the
+// instantiated shapes below, input parts multiples of 8. Returns a cudaError_t (0 on success).
 int bilstm_fwd_mma(const void* x0, const void* x1, int E0, int E1, const void* lengths,
                    const void* w_ih, const void* w_hh, const void* bias, void* hs_f, void* hs_b,
                    void* cs_f, void* cs_b, void* hn, void* cn, int T_steps, int B, int H, int G,
@@ -323,8 +346,11 @@ int bilstm_fwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   a.T = T_steps; a.B = B; a.G = G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = E0 + E1;
-  // the model's layers at the resident widths: E = H below, E = 2H stacked
+  // the model's layers at the resident widths: E = H below, E = 2H stacked;
+  // layer 0 of the two-layer models at embedding 80 and 72
   // (ops/lstm_cuda.py:FWD_MMA_SHAPES)
+  if (H == 80 && E == 80) return launch<80, 80>(a, tiles, threads, st);
+  if (H == 72 && E == 72) return launch<72, 72>(a, tiles, threads, st);
   if (H == 64 && E == 64) return launch<64, 64>(a, tiles, threads, st);
   if (H == 64 && E == 128) return launch<64, 128>(a, tiles, threads, st);
   if (H == 48 && E == 48) return launch<48, 48>(a, tiles, threads, st);

@@ -20,12 +20,13 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     other widths that fit. Three kernels do it, picked by shape and dtype
     (``fwd_kernel``): ``bilstm_layer_fwd_mma`` and
     ``bilstm_layer_fwd_train_mma`` launch ``csrc/bilstm_fwd_mma.cu`` (bf16,
-    H <= 64: the products on the tensor cores), ``bilstm_layer_fwd_f32`` and
-    ``bilstm_layer_fwd_train_f32`` launch ``csrc/bilstm_fwd_f32.cu`` (f32,
-    H <= 80: three tf32 passes a product on the tensor cores), and the two
-    wrappers themselves launch ``csrc/bilstm_fwd.cu`` for the rest (CUDA
-    cores: the bf16 shapes the tensor-core forward does not take, e.g.
-    H = 80). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
+    H <= 64 and E = H = 72 or 80: the products on the tensor cores),
+    ``bilstm_layer_fwd_f32`` and ``bilstm_layer_fwd_train_f32`` launch
+    ``csrc/bilstm_fwd_f32.cu`` (f32, H <= 80: three tf32 passes a product on
+    the tensor cores), and the two wrappers themselves launch
+    ``csrc/bilstm_fwd.cu`` for the rest (CUDA cores: the shapes the
+    tensor-core forwards do not take, e.g. bf16 at H = 80, E = 72 and f32 at
+    H = 72). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Four kernels do it, picked by shape and dtype (``sweep_kernel``):
@@ -62,7 +63,7 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     these widths. Plain twin of all three: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
-    out), by one of four kernels (``lite_kernel``):
+    out), by one of five kernels (``lite_kernel``):
     ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
     H = 128, 256 and 288: the products on the tensor cores; at 288 an
     instance whose cluster splits the unit groups 4 / 5 a block),
@@ -72,9 +73,12 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``bilstm_bwd_lite_f32_resident`` launches
     ``csrc/bilstm_bwd_lite_f32_resident.cu`` (f32 at 96: three tf32 passes,
     one block a row tile with ``W_hh`` resident in shared memory),
-    ``bilstm_bwd_lite`` itself launches ``csrc/bilstm_bwd_lite.cu`` for the
-    rest (bf16 at 96, 160, 192 and 224, f32 at the last three; CUDA cores).
-    Plain twin of all four: ``ops/lstm.py:bidir_layer_sweep_lite``.
+    ``bilstm_bwd_lite_mma_resident`` launches
+    ``csrc/bilstm_bwd_lite_mma_resident.cu`` (bf16 at 96: the same schedule
+    in one bf16 pass on the tensor cores), ``bilstm_bwd_lite`` itself
+    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (160, 192 and 224 in
+    either dtype; CUDA cores). Plain twin of all five:
+    ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
   three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
@@ -192,6 +196,7 @@ SMEM_LIMIT = 232448
 # kMaxH, kWPad, kFPad), lstm_recurrence_fwd_mma.cu (kMmaTile, kStages, kMaxH,
 # kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
 # kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
+# bilstm_bwd_lite_mma_resident.cu (kMmaTile, kMaxH, kMaxThreads, kPad, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
 # kStridePad), bilstm_bwd_lite_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads,
 # kStrideAlign, kStridePad), lstm_recurrence_bwd_f32.cu (kMmaTile, kStages, kMaxChunks,
@@ -241,10 +246,13 @@ BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
 # f32 sweep's)
 BWD_F32_ONESTAGE_MAX_THREADS, BWD_F32_ONESTAGE_MAX_H = 320, 80
 # the tensor-core forward: its (H, E) instances (the model's layers at the
-# resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96), x
-# chunks a thread copies per step
-FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128))
-FWD_MMA_MAX_CHUNKS = 2
+# resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96; past
+# MMA_MAX_H layer 0 of the two-layer models at embedding 72 and 80, E = H,
+# where bilstm_fwd.cu took them), x chunks a thread copies per step, and
+# its widest block (the <80, 80> instance: one warp per 8 units)
+FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128),
+                  (72, 72), (80, 80))
+FWD_MMA_MAX_CHUNKS, FWD_MMA_MAX_THREADS = 2, 320
 # the f32 tensor-core forward: x chunks a thread copies per step (its row
 # stride is the f32 sweep's), the row tiles it takes (one or two n8 tiles),
 # its widest H and its threads there (the instances at H = 80 take 320, in
@@ -313,6 +321,11 @@ LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 256, 288), (16, 32)
 # per 8 units): the width it is built for (the f32 weights of 96 units fit a
 # block; 112 do not)
 LITE_F32_RESIDENT_WIDTHS = (96,)
+# the bf16 tensor-core lite sweep with W_hh resident in one block
+# (bilstm_bwd_lite_mma_resident.cu, 8-row tiles, one warp per 8 units): the
+# width it is built for (the stacked layer of the bf16 models at embedding
+# 72 and 80, run at 96)
+LITE_MMA_RESIDENT_WIDTHS = (96,)
 # the f32 tensor-core input gates (three tf32 passes): the bf16 one's
 # block tile, input columns a stage (64 bytes of a row), cp.async stages,
 # and its dynamic shared memory (f32 rows padded by 4)
@@ -383,6 +396,8 @@ _SIGNATURES = {
     "bilstm_fwd_wide_f32": ("bilstm_fwd_wide_f32", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_bwd_lite_f32_resident": ("bilstm_bwd_lite_f32_resident",
                                      [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
+    "bilstm_bwd_lite_mma_resident": ("bilstm_bwd_lite_mma_resident",
+                                     [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -413,7 +428,8 @@ _CONSTANTS = {
     "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
                         "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
                         "bilstm_fwd_mma_pad"),
-                       (MMA_TILE, MMA_STAGES, FWD_MMA_MAX_CHUNKS, MAX_THREADS, MMA_PAD)),
+                       (MMA_TILE, MMA_STAGES, FWD_MMA_MAX_CHUNKS, FWD_MMA_MAX_THREADS,
+                        MMA_PAD)),
     "bilstm_wgrad_mma": (("bilstm_wgrad_mma_tile_m", "bilstm_wgrad_mma_tile_n",
                           "bilstm_wgrad_mma_tile_k", "bilstm_wgrad_mma_stages",
                           "bilstm_wgrad_mma_smem"),
@@ -512,6 +528,10 @@ _CONSTANTS = {
         "tile", "max_h", "max_threads", "stride_align", "stride_pad")),
         (MMA_TILE, max(LITE_F32_RESIDENT_WIDTHS), 4 * max(LITE_F32_RESIDENT_WIDTHS),
          BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD)),
+    "bilstm_bwd_lite_mma_resident": (tuple(f"bilstm_bwd_lite_mma_resident_{c}" for c in (
+        "tile", "max_h", "max_threads", "pad", "stages")),
+        (MMA_TILE, max(LITE_MMA_RESIDENT_WIDTHS), 4 * max(LITE_MMA_RESIDENT_WIDTHS), MMA_PAD,
+         MMA_STAGES)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -766,9 +786,12 @@ def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
     """``(threads, smem_bytes)`` of the tensor-core forward
     (``csrc/bilstm_fwd_mma.cu``), or ValueError for a dtype or shape it does
     not take. It takes bfloat16 at the (H, E) it is instantiated for
-    (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H) in 1 or 2 input
-    parts that are multiples of 8 wide. One warp per 8 hidden units; the
-    shared memory is the three-stage ring of 8-row [x ; h] tiles."""
+    (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H, and E = H = 72
+    or 80, shapes ``launch_plan`` (``bilstm_fwd.cu``) takes too, so no layer
+    changes its route or padded shape) in 1 or 2 input parts that are
+    multiples of 8 wide. One warp per 8 hidden units (at 80,
+    ``FWD_MMA_MAX_THREADS``); the shared memory is the three-stage ring of
+    8-row [x ; h] tiles."""
     E = sum(E_parts)
     if (dtype != torch.bfloat16 or (H, E) not in FWD_MMA_SHAPES or len(E_parts) not in (1, 2)
             or any(e <= 0 or e % 8 for e in E_parts)):
@@ -830,10 +853,11 @@ def fwd_f32_rows(E_parts: Sequence[int], H: int, B: int, G: int, sms: int) -> in
 def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's forward (both variants) takes for a
     layer, by shape and dtype alone, the first whose plan fits:
-    ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16, H <= 64),
-    ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H <= 80), ``"bilstm_fwd"``
-    (``launch_plan``: the CUDA cores, the shapes the tensor-core forwards do
-    not take, such as bf16 at H = 80); ValueError naming the three
+    ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16, H <= 64 and E = H = 72
+    or 80), ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H % 16 == 0 up to
+    80), ``"bilstm_fwd"`` (``launch_plan``: the CUDA cores, the shapes the
+    tensor-core forwards do not take, such as bf16 at H = 80, E = 72 and f32
+    at H = 72); ValueError naming the three
     refusals otherwise. A tensor-core plan takes a shape whether or not the
     CUDA-core one does."""
     return _first_fitting(
@@ -1119,19 +1143,45 @@ def lite_f32_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
     return 4 * H, smem
 
 
+def lite_mma_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the bf16 tensor-core lite sweep with
+    ``W_hh`` resident in one block (``csrc/bilstm_bwd_lite_mma_resident.cu``),
+    or ValueError for a dtype or width it does not take: it takes bfloat16
+    at H in ``LITE_MMA_RESIDENT_WIDTHS`` (96). One warp per 8 hidden units;
+    shared memory for the bf16 weights (4H rows of H + 8), the dgates tile
+    in f32 (8 rows of 4H + 4) and in bf16 (8 rows of 4H + 8), the
+    ``MMA_STAGES`` stages of the step tiles' cp.async ring (8 rows each of
+    h_prev, c_prev and two dy streams in bf16, H + 8 wide, and of xg in f32,
+    4H + 4 wide) and the exchange of the dh product's warp pairs."""
+    if dtype != torch.bfloat16 or H not in LITE_MMA_RESIDENT_WIDTHS:
+        raise ValueError(
+            f"bilstm_bwd_lite_mma_resident kernel takes bfloat16 with H in "
+            f"{list(LITE_MMA_RESIDENT_WIDTHS)}, got {dtype}, H={H}")
+    ks, gs, fs = H + MMA_PAD, 4 * H + MMA_PAD, 4 * H + 4
+    stage = MMA_TILE * ks * 2 * 4 + MMA_TILE * fs * 4
+    smem = (4 * H * ks * 2 + MMA_TILE * fs * 4 + MMA_TILE * gs * 2 + MMA_STAGES * stage
+            + H // 8 * 64 * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bilstm_bwd_lite_mma_resident kernel: H={H} needs {smem} bytes of "
+                         f"shared memory (at most {SMEM_LIMIT})")
+    return 4 * H, smem
+
+
 def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
     ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
     256 or 288), ``"bilstm_bwd_lite_f32"`` where ``lite_f32_check`` passes
     (f32 at those widths), ``"bilstm_bwd_lite_f32_resident"`` where
-    ``lite_f32_resident_plan`` takes it (f32 at 96), else
-    ``"bilstm_bwd_lite"`` where ``wide_check`` passes (the widths the
-    tensor-core sweeps do not take: 96 in bf16, 160, 192, 224 in either
-    dtype); ValueError naming the refusals otherwise."""
+    ``lite_f32_resident_plan`` takes it (f32 at 96),
+    ``"bilstm_bwd_lite_mma_resident"`` where ``lite_mma_resident_plan``
+    takes it (bf16 at 96), else ``"bilstm_bwd_lite"`` where ``wide_check``
+    passes (the widths the tensor-core sweeps do not take: 160, 192, 224 in
+    either dtype); ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
                         ("bilstm_bwd_lite_f32", lite_f32_check),
-                        ("bilstm_bwd_lite_f32_resident", lite_f32_resident_plan)):
+                        ("bilstm_bwd_lite_f32_resident", lite_f32_resident_plan),
+                        ("bilstm_bwd_lite_mma_resident", lite_mma_resident_plan)):
         try:
             check(H, dtype)
             return name
@@ -1535,9 +1585,9 @@ def bilstm_layer_fwd(
     shapes and dtype: a tensor-core one through :func:`bilstm_layer_fwd_mma`
     (bf16) or :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` then
     counts it, or ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks
-    for the latter by name (to time it beside the others; not in f32 at
-    H = 80, where the f32 tensor-core forward took over); a shape it does not
-    take raises.
+    for the latter by name (to time it beside the others: in bf16 at E = H =
+    80 and 72 too; not in f32 at H = 80, where the f32 tensor-core forward
+    took over); a shape it does not take raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
@@ -1595,10 +1645,10 @@ def bilstm_layer_fwd_mma(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The eval variant of one layer on the tensor cores
     (``csrc/bilstm_fwd_mma.cu``); the contract of :func:`bilstm_layer_fwd`.
-    Takes the shapes ``fwd_mma_plan`` takes (bfloat16, H <= 64) and raises
-    for the rest. Row tiles are cut inside each weight group, so nothing is
-    padded. Its outputs carry no graph, so under grad mode it refuses an
-    operand that requires grad, on the CPU too."""
+    Takes the shapes ``fwd_mma_plan`` takes (bfloat16, H <= 64 and E = H =
+    72, 80) and raises for the rest. Row tiles are cut inside each weight
+    group, so nothing is padded. Its outputs carry no graph, so under grad
+    mode it refuses an operand that requires grad, on the CPU too."""
     x_parts = tuple(x_parts)
     _no_graph(*x_parts, w_ih, w_hh, bias)
     if not x_parts[0].is_cuda:
@@ -1746,9 +1796,9 @@ def bilstm_bwd(
     (bf16), :func:`bilstm_bwd_f32` or :func:`bilstm_bwd_f32_onestage` (f32),
     whose ``.launches`` then counts it, or ``csrc/bilstm_bwd.cu`` here.
     ``kernel="bilstm_bwd"`` asks for the latter by name (to time it beside
-    the others; not in bf16 at E = H = 80, where the tensor-core sweep's
-    <80, 80> instance took over; at H % 16 == 8 in bf16 still); a shape it
-    does not take raises."""
+    the others; not in bf16 past H = 64 where the tensor-core sweep takes
+    the shape, its <80, 80> and <72, 72> instances; at H % 16 == 8 up to 56
+    in bf16 still); a shape it does not take raises."""
     x_parts, dyf, dyb = tuple(x_parts), tuple(dyf), tuple(dyb)
     if not x_parts[0].is_cuda:
         return bidir_layer_sweep(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
@@ -1759,7 +1809,7 @@ def bilstm_bwd(
         dyf, dyb, dhn, dcn, cd)
     if kernel not in (None, "bilstm_bwd", *_TILE_SWEEPS):
         raise ValueError(f"bilstm_bwd: no sweep kernel named {kernel!r}")
-    if kernel == "bilstm_bwd" and cd == torch.bfloat16 and H == BWD_MMA_MAX_H \
+    if kernel == "bilstm_bwd" and cd == torch.bfloat16 and H > MMA_MAX_H \
             and sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma":
         raise ValueError("bilstm_bwd: csrc/bilstm_bwd.cu is not asked for by name where the "
                          f"bf16 tensor-core sweep takes H={H} past {MMA_MAX_H}")
@@ -2452,12 +2502,13 @@ def bilstm_bwd_lite(
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
     width and dtype: a tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128, 256 and 288), :func:`bilstm_bwd_lite_f32` (f32 there)
-    or :func:`bilstm_bwd_lite_f32_resident` (f32 at 96; their ``.launches``
+    (bf16 at H = 128, 256 and 288), :func:`bilstm_bwd_lite_f32` (f32 there),
+    :func:`bilstm_bwd_lite_f32_resident` (f32 at 96) or
+    :func:`bilstm_bwd_lite_mma_resident` (bf16 at 96; their ``.launches``
     then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
-    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128
-    and 256 (to time it beside the others); it takes no width past 256 and
-    no f32 width of the f32 tensor-core sweeps (128, 256, 288 and 96)."""
+    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 96,
+    128 and 256 (to time it beside the others); it takes no width past 256
+    and no f32 width of the f32 tensor-core sweeps (128, 256, 288 and 96)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
@@ -2465,7 +2516,8 @@ def bilstm_bwd_lite(
                                       dhn, dcn, cd)
     tensor_core = {"bilstm_bwd_lite_mma": bilstm_bwd_lite_mma,
                    "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32,
-                   "bilstm_bwd_lite_f32_resident": bilstm_bwd_lite_f32_resident}
+                   "bilstm_bwd_lite_f32_resident": bilstm_bwd_lite_f32_resident,
+                   "bilstm_bwd_lite_mma_resident": bilstm_bwd_lite_mma_resident}
     if kernel not in (None, "bilstm_bwd_lite", *tensor_core):
         raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
     kernel = kernel or lite_kernel(xg.shape[-1] // 4, cd)
@@ -2592,21 +2644,65 @@ def bilstm_bwd_lite_f32_resident(
     rest. Row tiles of 8 are cut inside each weight group, so nothing is
     padded. Its output carries no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too."""
+    return _lite_resident(bilstm_bwd_lite_f32_resident, lite_f32_resident_plan, xg, lengths,
+                          w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+
+
+bilstm_bwd_lite_f32_resident.launches = 0
+
+
+def bilstm_bwd_lite_mma_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    cs_f: torch.Tensor,
+    cs_b: torch.Tensor,
+    dyf: Sequence[torch.Tensor],
+    dyb: Sequence[torch.Tensor],
+    dhn: Optional[torch.Tensor],
+    dcn: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """One layer's backward sweep over its input gates in bf16 on the tensor
+    cores, one block a row tile with ``W_hh`` resident (the gate product's
+    weights in registers, the dh product's in shared memory;
+    ``csrc/bilstm_bwd_lite_mma_resident.cu``); the contract of
+    :func:`bilstm_bwd_lite`. Takes the widths ``lite_mma_resident_plan``
+    takes (bfloat16, H = 96) and raises for the rest. Row tiles of 8 are cut
+    inside each weight group, so nothing is padded. Its output carries no
+    graph, so under grad mode it refuses an operand that requires grad, on
+    the CPU too."""
+    return _lite_resident(bilstm_bwd_lite_mma_resident, lite_mma_resident_plan, xg, lengths,
+                          w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+
+
+bilstm_bwd_lite_mma_resident.launches = 0
+
+
+def _lite_resident(wrapper, plan, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn,
+                   cd):
+    """The one-block lite sweeps' body: ``wrapper`` names the kernel
+    (``csrc/<name>.cu``, 8-row tiles, its C entry the operands of
+    ``bilstm_bwd_lite_f32_resident.cu``) and counts its launches,
+    ``plan(H, dtype)`` gives its threads and shared memory or refuses. On
+    the CPU the plain twin; under grad mode an operand that requires grad is
+    refused."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     _no_graph(xg, w_hh, hs_f, hs_b, cs_f, cs_b, *dyf, *dyb)
-    cd = compute_dtype
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
-    name = "bilstm_bwd_lite_f32_resident"
-    threads, smem = lite_f32_resident_plan(xg.shape[-1] // 4, cd)
+    name = wrapper.__name__
+    threads, smem = plan(xg.shape[-1] // 4, cd)
     dev, T, B, H, G, w_hh = _lite_operands(name, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,
                                            dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dgates
     with torch.cuda.device(dev):
-        err = _kernels(name).bilstm_bwd_lite_f32_resident(
+        err = getattr(_kernels(name), name)(
             xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
             hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
             _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
@@ -2614,11 +2710,8 @@ def bilstm_bwd_lite_f32_resident(
             threads, smem, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(name, err)
-    bilstm_bwd_lite_f32_resident.launches += 1
+    wrapper.launches += 1
     return dgates
-
-
-bilstm_bwd_lite_f32_resident.launches = 0
 
 
 def _lite_tensor_core(wrapper, check, plan, weights, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b,
@@ -3059,7 +3152,8 @@ def lstm_recurrence_fwd(
     ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where the
     caller has it, goes to the last), or the cluster kernel here (up to 288
     units). ``kernel="lstm_recurrence_fwd"`` asks for the latter by name (to
-    time it beside the others).
+    time it beside the others; not in bf16 at ``REC_MMA_WIDTHS``, where the
+    tensor-core forward took over).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
@@ -3070,6 +3164,9 @@ def lstm_recurrence_fwd(
                       "lstm_recurrence_fwd_wide_f32"):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    if kernel == name and recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mma":
+        raise ValueError(f"lstm_recurrence_fwd: csrc/lstm_recurrence_fwd.cu is not asked for by "
+                         f"name where the bf16 tensor-core forward takes H={H}")
     kernel = kernel or recurrence_fwd_kernel(H, cd)
     if kernel == "lstm_recurrence_fwd_mma":
         return lstm_recurrence_fwd_mma(xg, valid, w, G, cd)

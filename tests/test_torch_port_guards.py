@@ -64,7 +64,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma",
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
                        "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
-                       "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma"}
+                       "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma",
+                       "bilstm_bwd_lite_mma_resident"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -88,10 +89,18 @@ def test_every_kernel_source_is_built_and_bound():
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
                       ("bilstm_bwd_f32_onestage", "mma_tf32("),
                       ("bilstm_bwd_lite_f32_resident", "mma_tf32("),
+                      ("bilstm_bwd_lite_mma_resident", "mma_bf16("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
         text = kernel_source(name)
         assert '#include "bilstm_mma.cuh"' in text and mma in text
         assert "cluster" not in text.rsplit("#include", 1)[1]  # no cluster past the header
+    # the one-block bf16 lite sweep: the gate product's two chains and the dh
+    # product on mma.sync, the latter's A fragments through ldmatrix.trans, its
+    # K split over warp pairs that meet at a named barrier, the step tiles
+    # through a cp.async ring
+    text = kernel_source("bilstm_bwd_lite_mma_resident").rsplit("#include", 1)[1]
+    assert text.count("mma_bf16(") == 3 and text.count("ldmatrix_x4_trans(") == 1
+    assert "pair_sync(" in text and "bar.sync" in text and "cp_async16(" in text
     # the tensor-core lite sweep keeps the 8-block cluster split: both of its
     # products on mma.sync (the dh product through ldmatrix.trans), the
     # partial sums exchanged through distributed shared memory; so does its

@@ -1031,11 +1031,15 @@ def test_lite_mma_uneven_plan_at_256():
         ([16, 16], 16, torch.float32, "bilstm_fwd_f32"),
         ([80], 80, torch.float32, "bilstm_fwd_f32"),   # f32 at H = 80: its 320-thread instance
         ([40, 40], 80, torch.float32, "bilstm_fwd_f32"),
-        ([80], 80, torch.bfloat16, "bilstm_fwd"),      # bf16 at H = 80: the CUDA-core forward
+        ([80], 80, torch.bfloat16, "bilstm_fwd_mma"),  # bf16 at E = H = 80: its <80, 80> instance
         ([128, 128], 128, torch.float32, None),        # too wide for any
         ([32], 64, torch.bfloat16, "bilstm_fwd"),      # (H, E) not instantiated
         ([60], 64, torch.bfloat16, None),               # parts not multiples of 8
         ([128, 128], 128, torch.bfloat16, None),        # too wide for either
+        ([40, 40], 80, torch.bfloat16, "bilstm_fwd_mma"),
+        ([72], 72, torch.bfloat16, "bilstm_fwd_mma"),  # its <72, 72> instance: nine k16 steps
+        ([72], 72, torch.float32, "bilstm_fwd"),       # f32 at H % 16 == 8: the CUDA cores
+        ([56], 56, torch.bfloat16, "bilstm_fwd"),      # bf16 at 56: not instantiated
     ],
 )
 def test_fwd_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
@@ -1054,7 +1058,7 @@ def test_fwd_mma_plan(H, E):
     static shared memory; K whole k16 steps; one and two input parts."""
     for E_parts in ([E], [E // 2, E // 2]) if (E // 2) % 8 == 0 else ([E],):
         threads, smem = lstm_cuda.fwd_mma_plan(E_parts, H, torch.bfloat16)
-        assert threads == 4 * H <= lstm_cuda.MAX_THREADS
+        assert threads == 4 * H <= lstm_cuda.FWD_MMA_MAX_THREADS
         assert E <= lstm_cuda.FWD_MMA_MAX_CHUNKS * threads  # 8 rows x E / 8 chunks
         assert (E + H) % 16 == 0 and smem <= 48 * 1024 <= lstm_cuda.SMEM_LIMIT
     with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
@@ -1512,7 +1516,7 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (224, torch.float32, "bilstm_bwd_lite"),
         (192, torch.float32, "bilstm_bwd_lite"),
         (192, torch.bfloat16, "bilstm_bwd_lite"),  # m16 tiles not even over 8 warps
-        (96, torch.bfloat16, "bilstm_bwd_lite"),   # no whole 8-unit groups a block
+        (96, torch.bfloat16, "bilstm_bwd_lite_mma_resident"),  # W_hh resident in one block
         (32, torch.bfloat16, "bilstm_bwd_lite"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_bwd_lite_f32"),  # 4 or 5 unit groups a block
@@ -1570,6 +1574,7 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             bf16 = dtype == torch.bfloat16
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates_f32")
             assert lite == ("bilstm_bwd_lite_f32_resident" if (H, bf16) == (96, False)
+                            else "bilstm_bwd_lite_mma_resident" if H == 96
                             else "bilstm_bwd_lite" if H not in (128, 256, 288)
                             else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
     for E_parts in ([256], [256, 256]):
@@ -1973,9 +1978,9 @@ def test_f32_forward_takes_80_in_8_row_tiles():
     tensor-core forward in its 320-thread instances: 8-row tiles only (the
     weights, 320 rows of stride 168, and two 8-row stages take 225,792
     bytes; 16 rows would take 236,544), at every batch; at the train step's
-    400 rows in 5 groups 100 blocks. bf16 keeps the CUDA-core forward there,
-    the f32 sweep its one-stage kernel, and E past 80 at H = 80 does not
-    fit."""
+    400 rows in 5 groups 100 blocks. bf16 takes the tensor-core forward's
+    <80, 80> instance there, the f32 sweep its one-stage kernel, and E past
+    80 at H = 80 does not fit."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert lstm_cuda.fwd_kernel([80], 80, f32) == "bilstm_fwd_f32"
     assert lstm_cuda.fwd_f32_plan([80], 80, f32, 8) == (320, (320 + 16) * 168 * 4) == (
@@ -1986,7 +1991,7 @@ def test_f32_forward_takes_80_in_8_row_tiles():
         assert lstm_cuda.fwd_f32_rows([80], 80, B, G, 132) == 8
     assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
     assert lstm_cuda.FWD_F32_MAX_H == 80 and lstm_cuda.FWD_F32_MAX_THREADS == 4 * 80
-    assert lstm_cuda.fwd_kernel([80], 80, bf16) == "bilstm_fwd"
+    assert lstm_cuda.fwd_kernel([80], 80, bf16) == "bilstm_fwd_mma"
     assert lstm_cuda.sweep_kernel([80], 80, f32) == "bilstm_bwd_f32_onestage"
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.fwd_f32_plan([80], 96, f32)
@@ -2001,7 +2006,8 @@ def test_lite_f32_resident_plan_and_dispatch():
     the dgates tile (8 rows of 388), two h_prev stages and the warp pairs'
     exchange: 181,888 bytes, one block an SM; 8-row tiles make 100 blocks at
     400 rows in one group. At 112 the weights alone would not fit. f32 at
-    160, 192 and 224 keeps the CUDA-core sweep, and so does bf16 at 96."""
+    160, 192 and 224 keeps the CUDA-core sweep; bf16 at 96 takes the
+    one-block bf16 sweep."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert lstm_cuda.lite_kernel(96, f32) == "bilstm_bwd_lite_f32_resident"
     threads, smem = lstm_cuda.lite_f32_resident_plan(96, f32)
@@ -2012,7 +2018,7 @@ def test_lite_f32_resident_plan_and_dispatch():
     assert 2 * lstm_cuda.mma_tiles(400, 1) == 100
     for H in (160, 192, 224):
         assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite"
-    assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite"
+    assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite_mma_resident"
     for H, dtype in ((96, bf16), (128, f32), (160, f32), (64, f32)):
         with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
             lstm_cuda.lite_f32_resident_plan(H, dtype)
@@ -2040,6 +2046,113 @@ def test_lite_f32_resident_wrapper_takes_plain_version_on_cpu(ny):
         lstm_cuda.bilstm_bwd_lite_f32_resident(xg.clone().requires_grad_(), *args[1:])
     with torch.no_grad():
         lstm_cuda.bilstm_bwd_lite_f32_resident(xg.clone().requires_grad_(), *args[1:])
+
+
+# ---- the bf16 forward at E = H = 80, 72 and the one-block bf16 lite sweep at 96
+def test_fwd_mma_plan_at_80_and_72():
+    """Layer 0 of the bf16 two-layer models at embedding 80 and 72 (E = H)
+    takes the tensor-core forward's <80, 80> and <72, 72> instances: one
+    warp per 8 units, 320 and 288 threads (past the 256 of the instances up
+    to 64; ``FWD_MMA_MAX_THREADS``); the three-stage ring of 8-row [x ; h]
+    tiles, 8 x (160 + 8) x 2 x 3 = 8,064 bytes and 8 x (144 + 8) x 2 x 3 =
+    7,296; K = 160 in ten k16 steps and 144 in nine; 100 blocks at the
+    train step's 400 rows in 5 groups. It takes them only where
+    ``bilstm_fwd.cu`` took them, and no other width past 64."""
+    bf16 = torch.bfloat16
+    assert lstm_cuda.fwd_mma_plan([80], 80, bf16) == (320, 8 * 168 * 2 * 3) == (320, 8064)
+    assert lstm_cuda.fwd_mma_plan([40, 40], 80, bf16) == (320, 8064)
+    assert lstm_cuda.fwd_mma_plan([72], 72, bf16) == (288, 8 * 152 * 2 * 3) == (288, 7296)
+    assert lstm_cuda.FWD_MMA_MAX_THREADS == 320 and (80 + 80) % 16 == (72 + 72) % 16 == 0
+    assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
+    for E_parts, H in (([80], 80), ([40, 40], 80), ([72], 72)):
+        lstm_cuda.launch_plan(E_parts, H, bf16)
+        assert lstm_cuda.fwd_kernel(E_parts, H, bf16) == "bilstm_fwd_mma"
+    for E_parts, H in (([72], 80), ([80], 72), ([96], 96), ([56], 56), ([160], 80)):
+        with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+            lstm_cuda.fwd_mma_plan(E_parts, H, bf16)
+    with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+        lstm_cuda.fwd_mma_plan([80], 80, torch.float32)
+    # the sweep beside it on both models: the tensor-core one's own instances
+    assert lstm_cuda.sweep_kernel([80], 80, bf16) == lstm_cuda.sweep_kernel([72], 72, bf16) == (
+        "bilstm_bwd_mma")
+
+
+def test_lite_mma_resident_plan_and_dispatch():
+    """The bf16 lite sweep at H = 96 (the stacked layer of the bf16 models
+    at embedding 80 and 72, run at 96) takes the one-block bf16 sweep:
+    12 warps; shared memory for the bf16 weights (384 rows of stride 104),
+    the dgates tile in f32 (8 rows of 388) and in bf16 (8 rows of 392),
+    three ring stages of the step tiles (8 rows each of h_prev, c_prev and
+    two dy streams at stride 104 in bf16 and of xg at 388 in f32: 19,072
+    bytes) and the warp pairs' exchange: 158,848 bytes; 1152 tile chunks a
+    step at most, 3 a thread; 100 blocks at 400 rows in one group. f32 at
+    96 keeps its own one-block sweep, and 160, 192 and 224 the CUDA-core
+    sweep in both dtypes."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    threads, smem = lstm_cuda.lite_mma_resident_plan(96, bf16)
+    assert threads == 384 == 4 * 96
+    stage = 4 * 8 * 104 * 2 + 8 * 388 * 4
+    assert stage == 19072 and 8 * (4 * 12 + 96) == 3 * threads
+    assert smem == (384 * 104 * 2 + 8 * 388 * 4 + 8 * 392 * 2 + 3 * stage
+                    + 12 * 64 * 4) == 158848 <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.LITE_MMA_RESIDENT_WIDTHS == (96,)
+    assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite_mma_resident"
+    assert lstm_cuda.lite_kernel(96, f32) == "bilstm_bwd_lite_f32_resident"
+    for H in (160, 192, 224):
+        for dtype in (f32, bf16):
+            assert lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite"
+    for H, dtype in ((96, f32), (128, bf16), (160, bf16), (64, bf16), (80, bf16)):
+        with pytest.raises(ValueError, match="bilstm_bwd_lite_mma_resident kernel takes bfloat16"):
+            lstm_cuda.lite_mma_resident_plan(H, dtype)
+    for E_parts, H in (([80, 80], 80), ([72, 72], 72)):
+        assert lstm_cuda.layer_route(E_parts, H, bf16) == "wide"
+        assert lstm_cuda.padded_width(E_parts, H, bf16) == 96
+        assert lstm_cuda.padded_parts(E_parts, H, bf16) == (80, 80)
+
+
+@pytest.mark.parametrize("ny", [0, 1, 2])
+def test_lite_mma_resident_wrapper_takes_plain_version_on_cpu(ny):
+    """On the CPU the one-block bf16 lite sweep and the dispatch at H = 96
+    run the plain twin bit for bit and launch nothing; under grad mode the
+    wrapper refuses an operand that requires grad."""
+    cpu, cd, H = torch.device("cpu"), torch.bfloat16, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(5, 6, [32, 32], H, 1, cd, cpu)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    want = bidir_layer_sweep_lite(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_mma_resident(*args), want)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args), want)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite"), want)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_bwd_lite_mma_resident(xg.clone().requires_grad_(), *args[1:])
+    with torch.no_grad():
+        lstm_cuda.bilstm_bwd_lite_mma_resident(xg.clone().requires_grad_(), *args[1:])
+
+
+@pytest.mark.parametrize("E_parts,H", [([80], 80), ([40, 40], 80), ([72], 72)])
+def test_fwd_mma_wrappers_at_80_and_72_take_plain_versions_on_cpu(E_parts, H):
+    """On the CPU the tensor-core forward at E = H = 80 and 72, the
+    dispatch and ``bilstm_fwd.cu`` asked for by name (both variants) run the
+    plain twin bit for bit and launch nothing."""
+    cpu, cd = torch.device("cpu"), torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 12, E_parts, H, 3, cd, cpu)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
+    before = [f.launches for f in wrappers]
+    for got in (lstm_cuda.bilstm_layer_fwd_train_mma(*args),
+                lstm_cuda.bilstm_layer_fwd_train(*args),
+                lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_layer_fwd_mma(*args), lstm_cuda.bilstm_layer_fwd(*args),
+                lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd")):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
 
 
 # ------------------------------------------------------------ on the card
@@ -2636,7 +2749,8 @@ def test_recurrence_fwd_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     and 3, G = 1, 2, 3 and 5 (groups of 12, 50, 10, 9, 8, 13, 7 and 80 rows:
     a short last tile inside most groups), T = 1, 3 and 24. The dispatch
     hands ``lstm_recurrence_fwd`` to it and its wrapper counts the launches;
-    the cluster kernel asked for by name agrees too."""
+    the cluster kernel is not asked for by name there (refused: the
+    tensor-core forward took its route)."""
     cd = torch.bfloat16
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=T + B + H)
     want = recurrence_fwd(xg, valid, w, G, cd)
@@ -2647,10 +2761,10 @@ def test_recurrence_fwd_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd), want, 3e-2)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
-    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
-           want, 3e-2)
+    with pytest.raises(ValueError, match="not asked for by name where the bf16 tensor-core"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda
@@ -2709,7 +2823,8 @@ def test_sweep_mma_at_h_mod_16_eq_8_matches_plain_on_card(cuda_device, T, E_part
     input parts, 0-2 dy streams, with and without final-state cotangents,
     groups of 6 to 13 rows (short tiles inside each group), rows 8-15 short
     of T. The dispatch hands ``bilstm_bwd`` to it; ``bilstm_bwd.cu`` asked
-    for by name agrees too."""
+    for by name agrees too up to 56, and at 72 (the <72, 72> instance's
+    shape) is refused by name."""
     cd = torch.bfloat16
     assert lstm_cuda.sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma"
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
@@ -2727,6 +2842,12 @@ def test_sweep_mma_at_h_mod_16_eq_8_matches_plain_on_card(cuda_device, T, E_part
     torch.cuda.synchronize()
     assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
         before[0], before[1] + 2)
+    if H > lstm_cuda.MMA_MAX_H:
+        with pytest.raises(ValueError, match="not asked for by name where the bf16 tensor-core"):
+            lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")
+        torch.cuda.synchronize()
+        assert lstm_cuda.bilstm_bwd.launches == before[0]
+        return
     _close(flat(lstm_cuda.bilstm_bwd(*args, kernel="bilstm_bwd")), flat(want), 3e-2)
     torch.cuda.synchronize()
     assert lstm_cuda.bilstm_bwd.launches == before[0] + 1
@@ -2797,14 +2918,16 @@ def test_bf16_model_gradients_take_the_tensor_core_sweep_on_card(cuda_device):
 @pytest.mark.parametrize("T", [30, 1])
 @pytest.mark.parametrize("E_parts,H,G,B", [
     ([64], 64, 5, 30), ([64, 64], 64, 1, 50), ([64], 64, 2, 18), ([32], 32, 3, 24),
-    ([32, 32], 32, 1, 13), ([16, 16], 16, 4, 20), ([48], 48, 1, 11)])
+    ([32, 32], 32, 1, 13), ([16, 16], 16, 4, 20), ([48], 48, 1, 11), ([80], 80, 5, 30),
+    ([40, 40], 80, 2, 22), ([80], 80, 1, 9), ([72], 72, 3, 27), ([72], 72, 4, 20)])
 def test_fwd_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     """The tensor-core forward against its plain twin in bf16, both
     variants: 1 and 2 input parts, weight groups of 5, 6, 8, 9, 11, 13 and
     50 rows (short tiles inside each group), rows of length 0, 1 and T, and
-    rows 8-15 short of T so a tile stops at its longest row. The dispatch
-    hands ``bilstm_layer_fwd(_train)`` to it; the CUDA-core forward asked
-    for by name agrees too."""
+    rows 8-15 short of T so a tile stops at its longest row; at E = H = 80
+    and 72 its 320- and 288-thread instances (K = 144 in nine k16 steps).
+    The dispatch hands ``bilstm_layer_fwd(_train)`` to it; the CUDA-core
+    forward asked for by name agrees too."""
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
                                                            seed=T + B)
@@ -3343,22 +3466,24 @@ def test_recurrence_op_at_padded_widths_on_card(cuda_device, dtype, H, Hp):
 def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     """The default two-layer model at embedding 80: layer 0 resident (in f32
     the tensor-core forward ``bilstm_fwd_f32.cu`` and the one-stage sweep,
-    in bf16 the CUDA-core forward and the tensor-core sweep
-    ``bilstm_bwd_mma.cu``, never ``bilstm_bwd.cu``), the stacked layer
-    padded to 96 on the wide route (its lite sweep in f32 the one-block
-    ``bilstm_bwd_lite_f32_resident.cu``, in bf16 ``bilstm_bwd_lite.cu``);
-    its gradients equal the CPU plain path's (1e-4 x max(1, max|grad|) in
-    f32, 2^-7 in bf16)."""
+    in bf16 the tensor-core forward ``bilstm_fwd_mma.cu`` and sweep
+    ``bilstm_bwd_mma.cu``, their <80, 80> instances, never the CUDA-core
+    ones), the stacked layer padded to 96 on the wide route (its lite sweep
+    in f32 the one-block ``bilstm_bwd_lite_f32_resident.cu``, in bf16 the
+    one-block ``bilstm_bwd_lite_mma_resident.cu``, never
+    ``bilstm_bwd_lite.cu``); its gradients equal the CPU plain path's (1e-4
+    x max(1, max|grad|) in f32, 2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
     wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd,
                 lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_bwd_lite_f32_resident,
-                lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32)
+                lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32,
+                lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        int(f32), int(not f32), 0, int(not f32), int(f32), int(not f32), int(f32)]
+        int(f32), int(not f32), 0, 0, int(f32), 0, int(f32), int(not f32), int(not f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -4465,3 +4590,168 @@ def test_lite_f32_resident_edges_on_card(cuda_device):
     with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
         lstm_cuda.bilstm_bwd_lite_f32_resident(xw, wide[1], wide[3], hw[0], hw[1], hw[4], hw[5],
                                                (), (), None, None, cd)
+
+
+# ---- the bf16 forward at E = H = 80, 72 and the one-block bf16 lite sweep at 96
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [80, 72])
+def test_fwd_mma_at_80_and_72_at_the_main_path_shape_on_card(cuda_device, H):
+    """Layer 0 of the bf16 two-layer models at embedding 80 and 72: E = H,
+    400 rows in 5 groups, T = 1500, the main path's lengths (groups at 0, 1
+    and T, the rest random), both variants against the plain twin at 3e-2 x
+    max(1, max|ref|); the same bits twice, and the two variants give the
+    same hs bits."""
+    cd, T, B, G = torch.bfloat16, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=H + 1)
+    lengths = _main_path_lengths(lengths, G, T)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    assert lstm_cuda.fwd_kernel([H], H, cd) == "bilstm_fwd_mma"
+    want = bidir_layer(*args, with_states=True)
+    got = lstm_cuda.bilstm_layer_fwd_train(*args)
+    ev = lstm_cuda.bilstm_layer_fwd(*args)
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert all(torch.equal(a, b) for a, b in zip(lstm_cuda.bilstm_layer_fwd_train_mma(*args),
+                                                 got))
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+
+
+@pytest.mark.cuda
+def test_fwd_mma_at_80_rejects_bad_operands_on_card(cuda_device):
+    """The tensor-core forward's wrappers refuse what its <80, 80> instance
+    does not take, before any launch: f32 operands, E = 72 at H = 80 (no
+    instance; the dispatch keeps ``bilstm_fwd.cu`` there), a ``w_hh`` that
+    is not contiguous; nothing falls back."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [80], 80, 2, cd, cuda_device)
+    before = [f.launches for f in (lstm_cuda.bilstm_layer_fwd_mma,
+                                   lstm_cuda.bilstm_layer_fwd_train_mma)]
+    for fwd in (lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma):
+        with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+            fwd(tuple(p.float() for p in parts), lengths, w_ih.float(), w_hh.float(), bias,
+                torch.float32)
+        with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
+            fwd((parts[0][..., :72].contiguous(),), lengths, w_ih[..., :72].contiguous(), w_hh,
+                bias, cd)
+        with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+            fwd(parts, lengths, w_ih, w_hh.transpose(-1, -2).contiguous().transpose(-1, -2),
+                bias, cd)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (lstm_cuda.bilstm_layer_fwd_mma,
+                                 lstm_cuda.bilstm_layer_fwd_train_mma)] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B,ny,final", [(1, 30, 1, True), (1, 13, 0, False), (3, 27, 2, True),
+                                          (5, 60, 2, False), (2, 22, 1, True),
+                                          (4, 36, 0, True)])
+def test_lite_mma_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final):
+    """The one-block bf16 lite sweep at H = 96 (W_hh resident, both
+    products on mma.sync) against its plain twin at 3e-2 x max(1,
+    max|ref|): 0, 1 and 2 dy streams, with and without final-state
+    cotangents, groups of 30, 13, 9, 12, 11 and 9 rows (short tiles inside
+    each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
+    and rows 8-15 short of T (a tile that stops early). The dispatch names
+    it and its wrapper counts the launches; ``bilstm_bwd_lite.cu`` asked for
+    by name agrees too."""
+    cd, H = torch.bfloat16, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                                seed=T + B + 97)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep_lite(*args)
+    assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_mma_resident"
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
+    _close([lstm_cuda.bilstm_bwd_lite_mma_resident(*args)], [want], 3e-2)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+def test_lite_mma_resident_at_the_main_path_shape_on_card(cuda_device):
+    """The stacked layer of the bf16 models at embedding 80 and 72 at its
+    run shape: H = 96, input parts 80 + 80, 400 rows in one group, one dy
+    stream a direction, T = 1500, ragged lengths; the same bits twice (the
+    pair exchange sums in a fixed order), and the plain twin at 3e-2."""
+    cd, T, B, H = torch.bfloat16, 1500, 400, 96
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [80, 80], H, 1, cd,
+                                                                cuda_device, seed=14)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    del parts
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:1], dy[2:3], dhn, dcn, cd)
+    got = lstm_cuda.bilstm_bwd_lite_mma_resident(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_mma_resident(*args), got)
+    _close([got], [bidir_layer_sweep_lite(*args)], 3e-2)
+
+
+@pytest.mark.cuda
+def test_lite_mma_resident_edges_on_card(cuda_device):
+    """An empty batch launches nothing and T = 0 gives an empty output; f32
+    operands and H = 128 raise in the one-block bf16 wrapper (nothing falls
+    back)."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [96], 96, 2, cd,
+                                                                cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    before = lstm_cuda.bilstm_bwd_lite_mma_resident.launches
+    empty = lambda t: t[:, :0].contiguous()  # noqa: E731
+    out = lstm_cuda.bilstm_bwd_lite_mma_resident(
+        xg[:, :, :0].contiguous(), lengths[:0], w_hh[:, :1].contiguous(),
+        *(empty(t) for t in (hs_f, hs_b, cs_f, cs_b)), (), (), None, None, cd)
+    assert out.shape == (2, 4, 0, 384)
+    out = lstm_cuda.bilstm_bwd_lite_mma_resident(
+        xg[:, :0].contiguous(), lengths, w_hh, *(t[:0].contiguous() for t in (hs_f, hs_b, cs_f,
+                                                                             cs_b)),
+        (), (), dhn, dcn, cd)
+    assert out.shape == (2, 0, 10, 384)
+    assert lstm_cuda.bilstm_bwd_lite_mma_resident.launches == before
+    f32 = torch.float32
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_mma_resident kernel takes bfloat16"):
+        lstm_cuda.bilstm_bwd_lite_mma_resident(xg, lengths, w_hh.to(f32), hs_f.to(f32),
+                                               hs_b.to(f32), cs_f.to(f32), cs_b.to(f32), (), (),
+                                               None, None, f32)
+    wide = layer_case(4, 10, [128], 128, 2, cd, cuda_device)
+    xw = input_gates(*wide[:1], wide[2], wide[4], cd)
+    hw = bidir_recurrence(xw, wide[1], wide[3], cd, with_states=True)
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_mma_resident kernel takes bfloat16"):
+        lstm_cuda.bilstm_bwd_lite_mma_resident(xw, wide[1], wide[3], hw[0], hw[1], hw[4], hw[5],
+                                               (), (), None, None, cd)
+    with pytest.raises(ValueError, match="hs_f must be"):
+        lstm_cuda.bilstm_bwd_lite_mma_resident(xg, lengths, w_hh, hs_f.float(), hs_b, cs_f,
+                                               cs_b, (), (), None, None, cd)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_bwd_lite_mma_resident.launches == before
+
+
+@pytest.mark.cuda
+def test_two_layer_model_at_embedding_72_on_card(cuda_device):
+    """The bf16 two-layer model at embedding 72: layer 0 (E = H = 72) on the
+    tensor-core forward's and sweep's <72, 72> instances, the stacked layer
+    padded to 96 on the wide route with the one-block bf16 lite sweep; no
+    CUDA-core forward, sweep or lite sweep launches. Its gradients equal
+    the CPU plain path's within 2^-7 x max(1, max|grad|)."""
+    cd = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_mma,
+                lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=72)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=72)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 2.0 ** -7 * max(
+            1.0, float(ref.abs().max())), name

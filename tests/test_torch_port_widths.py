@@ -19,7 +19,8 @@ unpadded layer.
 * two-layer models at embedding 48, 50, 80, 100, 112 and 272 against the
   JAX package (``utils/convert.py:from_jax_params``, dropout off): the
   forward and one train step's gradients, to the tolerance of the port's
-  other step tests (rtol 1e-4, atol 1e-5);
+  other step tests (rtol 1e-4, atol 1e-5); the bf16 model at embedding 72
+  against JAX in bf16 (each gradient within 2^-6 x its own max);
 * past 288 units a layer (embedding 300 and 320, one and two layers, f32)
   the default backend takes the recurrence op, where JAX's "auto" takes its
   scan: the forward and one train step's gradients against JAX at 1e-4 x
@@ -107,8 +108,9 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
     except bf16 at H = 288, which the tensor-core sweep now takes (the
     layers of 257-288 units, embedding 272 among them), f32 at 128, 256
     and 288, which the f32 tensor-core sweep (three tf32 passes) takes, and
-    f32 at 96, which its one-block instance with W_hh resident takes; f32
-    at 160, 192 and 224 keeps the CUDA-core one."""
+    96 in either dtype, which the one-block sweeps with W_hh resident take
+    (three tf32 passes in f32, one bf16 pass in bf16); 160, 192 and 224
+    keep the CUDA-core one."""
     wide = set()
     for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
@@ -126,8 +128,8 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
             if not bf16 and Hp in (128, 256, 288):
                 want = "bilstm_bwd_lite_f32"
-            if not bf16 and Hp == 96:
-                want = "bilstm_bwd_lite_f32_resident"
+            if Hp == 96:
+                want = "bilstm_bwd_lite_mma_resident" if bf16 else "bilstm_bwd_lite_f32_resident"
             assert lstm_cuda.lite_kernel(Hp, dtype) == want, (what, H, Hp)
     assert 288 in wide and 256 in wide and 96 in wide
 
@@ -318,6 +320,64 @@ def test_the_bf16_sweep_at_h_mod_16_eq_8_changes_no_other_plan(dtype, monkeypatc
             if route == "resident" and kernels[1] == "bilstm_bwd"} == {(16, (8,)), (16, (16, 16))}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the bf16 tensor-core forward took E = H = 80 and 72 and the
+    one-block bf16 lite sweep took H = 96 (the plans with those two set
+    back: ``FWD_MMA_SHAPES`` up to H = 64, ``LITE_MMA_RESIDENT_WIDTHS`` =
+    ()), and the same kernel at every step, except two, both in bf16: the
+    resident forward at (Hp, Ep) = (80, (80,)) and (72, (72,)) (layer 0 of
+    65-80 units) is ``bilstm_fwd_mma`` where it was ``bilstm_fwd``, and the
+    lite sweep at Hp = 96 (the stacked layers of 65-96 units and layer 0 of
+    81-96) ``bilstm_bwd_lite_mma_resident`` where it was
+    ``bilstm_bwd_lite``. f32 changes nothing; bf16 keeps ``bilstm_fwd.cu``
+    at the resident shapes the tensor-core forward has no instance for (H
+    % 16 == 8 up to 56, and H = 48 at E = 80 and 112), none at Hp = 72 or
+    80."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "FWD_MMA_SHAPES",
+                      tuple(s for s in lstm_cuda.FWD_MMA_SHAPES if s[0] <= lstm_cuda.MMA_MAX_H))
+            m.setattr(lstm_cuda, "LITE_MMA_RESIDENT_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
+            assert not diff, key
+    if dtype == torch.float32:
+        assert changed == {}
+        return
+    assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_mma"),
+                              ("bilstm_bwd_lite", "bilstm_bwd_lite_mma_resident")}
+    assert changed["bilstm_fwd", "bilstm_fwd_mma"] == {("resident", 80, (80,)),
+                                                       ("resident", 72, (72,))}
+    assert {(route, Hp) for route, Hp, _ in changed[
+        "bilstm_bwd_lite", "bilstm_bwd_lite_mma_resident"]} == {("wide", 96)}
+    # the models at embedding 80 and 72: layer 0 and the stacked layer
+    for width in (80, 72):
+        assert after["train layer 0", width][3][:2] == ("bilstm_fwd_mma", "bilstm_bwd_mma")
+        assert after["train stacked", width][:3] == ("wide", 96, (80, 80))
+        assert after["train stacked", width][3][2] == "bilstm_bwd_lite_mma_resident"
+    # what bilstm_fwd.cu keeps in bf16 (ROADMAP B2.2): no shape at Hp = 72 or 80
+    assert {(Hp, Ep) for route, Hp, Ep, kernels in after.values()
+            if route == "resident" and kernels[0] == "bilstm_fwd"} == {
+        (8, (8,)), (8, (8, 8)), (16, (8,)), (24, (24,)), (24, (24, 24)), (40, (40,)),
+        (40, (40, 40)), (48, (40, 40)), (48, (56, 56)), (56, (56,)), (56, (56, 56))}
+    assert not any(p[3][2] == "bilstm_bwd_lite" and p[1] == 96 for p in after.values()
+                   if p[0] == "wide")
+
+
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
     ([80], 80, torch.float32, 80, "resident"),     # the one-stage f32 sweep
     ([80], 80, torch.bfloat16, 80, "resident"),    # the tensor-core sweep at E = H = 80
@@ -494,6 +554,57 @@ def test_two_layer_model_matches_jax(embedding):
         got = p.grad if p.grad is not None else torch.zeros_like(p)
         np.testing.assert_allclose(got.numpy(), want[name].numpy(), atol=1e-5, rtol=1e-4,
                                    err_msg=name)
+
+
+def test_two_layer_bf16_model_at_embedding_72_matches_jax():
+    """The bf16 two-layer model at embedding 72 (layer 0 at E = H = 72, the
+    tensor-core forward's and sweep's <72, 72> shape; the stacked layer run
+    at 96, the one-block bf16 lite sweep's) against JAX with
+    ``compute_dtype=bfloat16`` on the same numpy weights, dropout off: the
+    eval step's and one train step's loss and aux values to rtol 1e-5 (the
+    same bf16 roundings of the same values; measured equal), and every
+    gradient within 2^-6 x max|ref| of its own parameter, plus 1e-7 for the
+    gradients that are 0 (four bf16 ulps at the gradient's scale: the port
+    and JAX round the streams in bf16 at other places and sum in f32 in
+    another order; measured at most 5.9e-3 x max|ref|, layer 0's w_hh)."""
+    vocab, pairs, T, embedding = 30, 2, 8, 72
+    kw = dict(vocab_size=vocab, embedding_size=embedding, num_epochs=5,
+              rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
+    jnet = jax_network(4, compute_dtype=jnp.bfloat16, **kw)
+    params = jax.tree_util.tree_map(np.array, jnet.init(jax.random.PRNGKey(embedding)))
+    net = intrepppid_network(4, device="cpu", compute_dtype=torch.bfloat16, **kw)
+    net.load_state_dict(from_jax_params(params))
+    rng = np.random.default_rng(embedding)
+
+    def ids():
+        a = rng.integers(1, vocab, (pairs, T)).astype(np.int32)
+        for i, n in enumerate([T, 3]):
+            a[i, n:] = 0
+        return a
+
+    batch = {k: ids() for k in ("p1", "p2", "anchor", "positive", "negative")}
+    batch["label"] = np.array([1, 0], np.int32)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    (jl, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jnet.step(p, jbatch, jax.random.PRNGKey(0), train=True), has_aux=True))(jp)
+    with torch.no_grad():
+        _, eval_aux = net.step(tb, torch.Generator().manual_seed(0), train=False)
+    loss, aux = net.step(tb, torch.Generator().manual_seed(0), train=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    for k, v in jaux.items():
+        np.testing.assert_allclose(float(aux[k]), float(v), rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(float(eval_aux[k]), float(v), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, jgrads))
+    assert sum(n.startswith("encoder.lstm.1.") for n in want) == 4
+    for name, p in net.named_parameters():
+        got = (p.grad if p.grad is not None else torch.zeros_like(p)).float().numpy()
+        ref = want[name].float().numpy()
+        err = float(np.abs(got - ref).max())
+        assert err <= 2.0 ** -6 * float(np.abs(ref).max()) + 1e-7, (name, err)
 
 
 @pytest.mark.parametrize("layers", [1, 2])
