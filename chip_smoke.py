@@ -875,9 +875,12 @@ def cudnn_stack_times(dev, dtype, E=E_SERVE, H=H_SERVE, layers=2) -> dict:
     data_ms = time_ms(lambda: torch.autograd.grad(lstm(x)[0], [x], dy), 5)
     with torch.inference_mode():
         inference_ms = time_ms(lambda: lstm(x), 5)
+    # the training forward once more, last: whether the first reading held
+    # more than the forward (a first call's algorithm search or allocation)
+    fwd_again_ms = time_ms(lambda: lstm(x), 5)
     return {"cudnn_fwd_ms": fwd_ms, "cudnn_fwd_bwd_ms": full_ms,
             "cudnn_bwd_data_ms": data_ms - fwd_ms, "cudnn_bwd_ms": full_ms - fwd_ms,
-            "cudnn_inference_ms": inference_ms}
+            "cudnn_inference_ms": inference_ms, "cudnn_fwd_again_ms": fwd_again_ms}
 
 
 def sweep_names(dxf, dxb):
@@ -996,12 +999,16 @@ def ragged_fwd_wgrad_check(dev) -> list:
 def ragged_80_96_check(dev) -> list:
     """The forward at E = H = 80 (both variants: in f32 ``bilstm_fwd_f32``'s
     320-thread instance, in bf16 ``bilstm_fwd_mma``'s <80, 80> one; in
-    bf16 also its <72, 72> one) and the one-block lite sweep at H = 96 (in
+    bf16 also its <72, 72> one), the one-block lite sweep at H = 96 (in
     f32 ``bilstm_bwd_lite_f32_resident``, in bf16
-    ``bilstm_bwd_lite_mma_resident``) against their twins where no size is
-    round: 27 rows in 3 weight groups of 9 (a short tile in each group),
-    T = 1 and 5, rows of length 0, 1 and T, the sweep with two dy streams
-    and with none; 1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16."""
+    ``bilstm_bwd_lite_mma_resident``), the one-block bf16 wide forward at
+    96 (both variants, ``bilstm_fwd_wide_mma_resident``) and the f32
+    tensor-core lite sweep at 160, 192 and 224 (``bilstm_bwd_lite_f32``)
+    against their twins where no size is round: 27 rows in 3 weight groups
+    of 9 (a short tile in each group), T = 1 and 5, rows of length 0, 1 and
+    T, the 9 rows of the second group (a whole row tile) ending at T // 3 at
+    most, the sweeps with two dy streams and with none; 1e-4 x max(1,
+    max|ref|) in f32, 3e-2 in bf16."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import (
         bidir_layer,
@@ -1020,17 +1027,33 @@ def ragged_80_96_check(dev) -> list:
 
         lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
         lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+        lengths[9:18] = torch.clamp(lengths[9:18], max=T // 3)
         for kernel, H, E_parts, cd in (
                 ("bilstm_fwd_f32", 80, [80], torch.float32),
                 ("bilstm_bwd_lite_f32_resident", 96, [48, 48], torch.float32),
                 ("bilstm_fwd_mma", 80, [80], torch.bfloat16),
                 ("bilstm_fwd_mma", 72, [72], torch.bfloat16),
-                ("bilstm_bwd_lite_mma_resident", 96, [48, 48], torch.bfloat16)):
+                ("bilstm_bwd_lite_mma_resident", 96, [48, 48], torch.bfloat16),
+                ("bilstm_fwd_wide_mma_resident", 96, [48, 48], torch.bfloat16),
+                ("bilstm_bwd_lite_f32", 160, [160], torch.float32),
+                ("bilstm_bwd_lite_f32", 192, [96, 96], torch.float32),
+                ("bilstm_bwd_lite_f32", 224, [224], torch.float32)):
             parts = tuple(u(T, B, e).to(cd) for e in E_parts)
             w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(cd)
             w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
             bias = u(2, 4 * H)
-            if kernel.startswith("bilstm_fwd"):
+            if kernel == "bilstm_fwd_wide_mma_resident":
+                xg = input_gates(parts, w_ih, bias, cd)
+                want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+                got = L.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd)
+                ev = L.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd)
+                res = {f"fwd_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(names, got, want)}
+                res.update({f"fwd_eval_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(names, ev, want)})
+                res["fwd_eval_vs_train_hs"] = (0.0, bool(torch.equal(ev[0], got[0])
+                                                         and torch.equal(ev[1], got[1])))
+                del got, ev, want
+            elif kernel.startswith("bilstm_fwd"):
                 sfx = kernel[len("bilstm_fwd"):]
                 args = (parts, lengths, w_ih, w_hh, bias, cd)
                 want = bidir_layer(*args, with_states=True)
@@ -1073,15 +1096,15 @@ def embedding_80_kernels(dev) -> dict:
     (their <80, 80> instances) and ``bilstm_wgrad_mma.cu`` (its last gate
     tile masked: 4H = 320). Each is held against its plain twin with the
     main path's lengths (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by
-    name too, in bf16 ``bilstm_fwd.cu`` and ``bilstm_wgrad.cu``; the bf16
-    forward the same bits twice), then timed at full lengths beside the twin
-    (timed once, in the check), its bound (the f32 tensor-core kernels at
-    495/3 TFLOP/s, the others at their dtype's rate), cuDNN's one-layer
-    training forward, inference forward and backward for the input in the
-    same dtype, and cuBLAS's products for wgrad, TF32 off; the f32 sweep in
-    turns with ``bilstm_bwd.cu`` by name, the bf16 forward (both variants)
-    with ``bilstm_fwd.cu`` and the bf16 wgrad with ``bilstm_wgrad.cu`` by
-    name (new, old, old, new). One dict per dtype and kernel: "fwd",
+    name too, in bf16 ``bilstm_wgrad.cu``; the bf16 forward the same bits
+    twice), then timed at full lengths beside the twin (timed once, in the
+    check), its bound (the f32 tensor-core kernels at 495/3 TFLOP/s, the
+    others at their dtype's rate), cuDNN's one-layer training forward,
+    inference forward and backward for the input in the same dtype, and
+    cuBLAS's products for wgrad, TF32 off; the f32 sweep in turns with
+    ``bilstm_bwd.cu`` by name and the bf16 wgrad with ``bilstm_wgrad.cu``
+    by name (new, old, old, new; ``bilstm_fwd.cu`` is no longer asked for
+    by name at E = H = 80). One dict per dtype and kernel: "fwd",
     "fwd_eval", "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
@@ -1090,8 +1113,7 @@ def embedding_80_kernels(dev) -> dict:
     picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad",
-               ("fwd", torch.bfloat16): "bilstm_fwd", ("fwd_eval", torch.bfloat16): "bilstm_fwd"}
+    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -1125,9 +1147,7 @@ def embedding_80_kernels(dev) -> dict:
             # the CUDA-core kernel asked for by name on the same operands
             old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
                    "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
-                                                   kernel="bilstm_wgrad"),
-                   "fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
-                   "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")}
+                                                   kernel="bilstm_wgrad")}
             if full:
                 for k, call in calls.items():
                     if (k, cd) in by_name:
@@ -1180,8 +1200,6 @@ def embedding_80_kernels(dev) -> dict:
                         res[k]["twice"] = (0.0, all(torch.equal(a, b)
                                                     for a, b in zip(calls[k](), got_f)))
                         out[k]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got_f, want))
-                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
-                                       for n, a, b in zip(names, old[k](), want)})
                         del got_f
                 torch.cuda.synchronize()
                 for k, r in res.items():
@@ -1422,7 +1440,9 @@ def train_counters():
             "bilstm_bwd_lite_mma_resident": L.bilstm_bwd_lite_mma_resident,
             "bilstm_gates_f32": L.bilstm_gates_f32,
             "bilstm_fwd_wide_train_f32": L.bilstm_fwd_wide_train_f32,
-            "bilstm_fwd_wide_f32": L.bilstm_fwd_wide_f32}
+            "bilstm_fwd_wide_f32": L.bilstm_fwd_wide_f32,
+            "bilstm_fwd_wide_train_mma_resident": L.bilstm_fwd_wide_train_mma_resident,
+            "bilstm_fwd_wide_mma_resident": L.bilstm_fwd_wide_mma_resident}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1486,29 +1506,33 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # gate tile) in bf16, its sweep the one-stage 3xTF32 kernel in f32 and
     # the tensor-core bilstm_bwd_mma.cu in bf16, never bilstm_bwd.cu; the
     # stacked layer (E = 2 x 80) runs padded to H = 96 on the wide route:
-    # the tensor-core input gates (in f32 bilstm_gates_f32), the CUDA-core
-    # forward, and the one-block lite sweep, in f32 the 3xTF32
-    # bilstm_bwd_lite_f32_resident.cu and in bf16
-    # bilstm_bwd_lite_mma_resident.cu, never bilstm_bwd_lite.cu
+    # the tensor-core input gates (in f32 bilstm_gates_f32), the forward (in
+    # f32 the CUDA-core bilstm_fwd_wide.cu, in bf16 the one-block
+    # bilstm_fwd_wide_mma_resident.cu, never bilstm_fwd_wide.cu), and the
+    # one-block lite sweep, in f32 the 3xTF32 bilstm_bwd_lite_f32_resident.cu
+    # and in bf16 bilstm_bwd_lite_mma_resident.cu, never bilstm_bwd_lite.cu
     e80_expect = {
         torch.float32: ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                         "bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_fwd_wide_train",
                         "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32",
                         "bilstm_wgrad"),
         torch.bfloat16: ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
-                         "bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                         "bilstm_bwd_lite_mma_resident", "bilstm_wgrad_mma")}
+                         "bilstm_gates_mma", "bilstm_fwd_wide_train_mma_resident",
+                         "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident",
+                         "bilstm_wgrad_mma")}
     e80_never = {
         torch.float32: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite",
                         "bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
                         "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
                         "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32",
-                        "bilstm_bwd_lite_mma_resident"),
+                        "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_train_mma_resident",
+                        "bilstm_fwd_wide_mma_resident"),
         torch.bfloat16: ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
                          "bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates_f32",
                          "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_train",
                          "bilstm_layer_fwd", "bilstm_bwd_lite", "bilstm_bwd_lite_mma",
-                         "bilstm_bwd_lite_f32_resident")}
+                         "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train",
+                         "bilstm_fwd_wide")}
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
         dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
         embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
@@ -1570,7 +1594,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                         "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
-                        "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel"),
+                        "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel",
+                        "bilstm_fwd_wide_mma_resident_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
                           "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
@@ -1578,7 +1603,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                           "bilstm_bwd_lite_mma_uneven_kernel",
                           "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
                           "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel",
-                          "bilstm_bwd_lite_f32_resident_kernel"),
+                          "bilstm_bwd_lite_f32_resident_kernel",
+                          "bilstm_bwd_lite_mma_resident_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1688,13 +1714,15 @@ WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wi
 # the kernels each one's gradient step and eval step must launch (at 72 in
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
 # and sweep's <72, 72> instances, the stacked layer (run at 96) that of the
-# one-block bf16 lite sweep, and bilstm_bwd.cu, bilstm_fwd.cu and
-# bilstm_bwd_lite.cu must not launch; at 16 in bf16 the stacked layer,
-# E = 16 + 16, H = 16, is bilstm_bwd.cu's: K = 48, which the tensor-core
-# sweep does not take; at 56 in bf16 both layers, E = 56 and 56 + 56, are
-# bilstm_fwd.cu's, which the tensor-core forward has no instance for; at
-# 160 in f32 both layers are bilstm_bwd_lite.cu's, on the wide route at
-# 160) and, where given, must not
+# one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu,
+# bilstm_fwd.cu, bilstm_fwd_wide.cu and bilstm_bwd_lite.cu must not launch;
+# at 16 in bf16 the stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's:
+# K = 48, which the tensor-core sweep does not take; at 56 in bf16 both
+# layers, E = 56 and 56 + 56, are bilstm_fwd.cu's, which the tensor-core
+# forward has no instance for; at 160 both layers run on the wide route at
+# 160: in f32 the f32 tensor-core lite sweep's (bilstm_bwd_lite.cu must not
+# launch), in bf16 bilstm_fwd_wide.cu's and bilstm_bwd_lite.cu's) and,
+# where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1709,17 +1737,23 @@ WIDTH_STEPS = (
     ("layer", 100, torch.bfloat16, WIDE_BF16),
     ("layer", 272, torch.bfloat16, WIDE_288_BF16),
     ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_bwd_mma", "bilstm_wgrad_mma", "bilstm_fwd_wide",
-                                   "bilstm_bwd_lite_mma_resident"),
-     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma",
+                                   "bilstm_fwd_wide_train_mma_resident",
+                                   "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident"),
+     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite",
+      "bilstm_fwd_wide_train", "bilstm_fwd_wide")),
     ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
                                    "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma")),
     ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
                                    "bilstm_wgrad_mma"),
      ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd")),
     ("layer", 160, torch.float32, ("bilstm_gates_f32", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                                   "bilstm_bwd_lite", "bilstm_wgrad_f32"),
-     ("bilstm_bwd_lite_f32", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32")),
+                                   "bilstm_bwd_lite_f32", "bilstm_wgrad_f32"),
+     ("bilstm_bwd_lite", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32")),
+    ("layer", 160, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                                    "bilstm_bwd_lite", "bilstm_wgrad_mma"),
+     ("bilstm_bwd_lite_f32", "bilstm_bwd_lite_mma", "bilstm_fwd_wide_mma",
+      "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
                                     "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
@@ -1814,33 +1848,37 @@ def padded_layer_timings(dev) -> list:
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
                            seed=SEED + 50, fwd_want="bilstm_fwd_wide_mma",
                            lite_want="bilstm_bwd_lite_mma", cd=torch.bfloat16,
-                           lite_by_name=False) -> dict:
+                           lite_by_name=False, fwd_by_name=False) -> dict:
     """The wide forward (both variants) and lite sweep the dispatch names on
     a main path, in ``cd``: by default layer 0 of the bf16 two-layer model
     at embedding 272 (E = 272, run at H = 288, 5 weight groups, two dy
     streams a direction: the tensor-core ``bilstm_fwd_wide_mma`` and
-    ``bilstm_bwd_lite_mma``, their instances for uneven unit groups), and
-    (``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96) the stacked
-    layer of the two-layer model at embedding 80 (the CUDA-core
-    ``bilstm_fwd_wide.cu`` in both dtypes, and the one-block lite sweeps,
-    ``bilstm_bwd_lite_mma_resident.cu`` in bf16 and
-    ``bilstm_bwd_lite_f32_resident.cu`` in f32); 400 rows, T = 1500, the
-    input gates from the tensor-core gates kernel. The forward and the sweep
-    the dispatch names must be ``fwd_want`` and ``lite_want``. Each held
-    against its plain twin with the main path's lengths (the tolerance
-    ``TOL``; the tensor-core forward's two variants must give the same hs
-    bits; the sweep the same bits twice; with ``lite_by_name``
-    ``bilstm_bwd_lite.cu`` by name on the same operands too, then timed in
-    turns with the sweep: ``cuda_core_ms``, its bound at 67 TFLOP/s
-    ``cuda_core_bound_ms``), then timed at full lengths beside the twin
-    (timed once, in the check), its bound at its rate (``kernel_peak``) at
-    the padded H (the kernel's own work) and at the true H, and cuDNN's
-    one-layer training forward, inference forward and backward for the
-    input at the true widths in ``cd``, TF32 off; the tensor-core forward
-    also at each of its row tiles. One dict per kernel: "fwd", "fwd_eval",
-    "lite" (the CUDA-core forward) or "fwd_mma", "fwd_eval_mma",
-    "lite_mma" (the tensor-core ones, with their row tile, tiles and the
-    clusters the card holds at once)."""
+    ``bilstm_bwd_lite_mma``, their instances for uneven unit groups); with
+    ``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96, the stacked
+    layer of the two-layer model at embedding 80 (in bf16 the one-block
+    ``bilstm_fwd_wide_mma_resident.cu`` and ``bilstm_bwd_lite_mma_resident.cu``,
+    in f32 ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_f32_resident.cu``);
+    with E = H = 160-224 layer 0 at those embeddings (in f32
+    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_f32.cu``, in bf16
+    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``); 400 rows, T = 1500,
+    the input gates from the tensor-core gates kernel. The forward and the
+    sweep the dispatch names must be ``fwd_want`` and ``lite_want``. Each
+    held against its plain twin with the main path's lengths (the tolerance
+    ``TOL``; a tensor-core forward's two variants must give the same hs
+    bits, and the same bits twice; the sweep the same bits twice; with
+    ``lite_by_name`` ``bilstm_bwd_lite.cu`` by name on the same operands too,
+    then timed in turns with the sweep: ``cuda_core_ms``, its bound at 67
+    TFLOP/s ``cuda_core_bound_ms``; with ``fwd_by_name`` the same for
+    ``bilstm_fwd_wide.cu`` and the forward, both variants), then timed at
+    full lengths beside the twin (timed once, in the check), its bound at
+    its rate (``kernel_peak``) at the padded H (the kernel's own work) and at
+    the true H, and cuDNN's one-layer training forward (``cudnn_fwd_again_ms``
+    its second reading), inference forward and backward for the input at the
+    true widths in ``cd``, TF32 off; the 8-block tensor-core forward also at
+    each of its row tiles. One dict per kernel: "fwd", "fwd_eval", "lite",
+    or "fwd_mma", "fwd_eval_mma", "lite_mma" for the 8-block tensor-core
+    ones (with their row tile, tiles and the clusters the card holds at
+    once)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite, bidir_recurrence
 
@@ -1850,13 +1888,14 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     picked = (Hp, L.wide_fwd_kernel(Hp, cd), L.lite_kernel(Hp, cd))
     if picked != (Hp_want, fwd_want, lite_want):
         raise AssertionError(f"the layer at E={E_parts}, H={H} in {cd} runs {picked}")
-    mma = fwd_want.endswith("_mma")
+    mma = fwd_want == "bilstm_fwd_wide_mma"
     sfx = "_mma" if mma else ""
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
              "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k + sfx: {"kernel": name, **shape} for k, name in (
         ("fwd", f"{fwd_want} (train)"), ("fwd_eval", f"{fwd_want} (eval)"), ("lite", lite_want))}
+    by_name = {"fwd": fwd_by_name, "fwd_eval": fwd_by_name, "lite": lite_by_name}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
@@ -1866,13 +1905,18 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["lite"] = lambda: L.bilstm_bwd_lite(*args)
-        old_lite = lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")  # noqa: E731
+        # the CUDA-core kernels asked for by name on the same operands
+        old = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                      kernel="bilstm_fwd_wide"),
+               "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,
+                                                     kernel="bilstm_fwd_wide"),
+               "lite": lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")}
         if full:
             for k, call in calls.items():
-                if k == "lite" and lite_by_name:
-                    # new, old, old, new: both sweeps in one run, on one card
+                if by_name[k]:
+                    # new, old, old, new: both kernels in one run, on one card
                     (out[k + sfx]["ms"], out[k + sfx]["ms_again"],
-                     out[k + sfx]["cuda_core_ms"]) = in_turns(call, old_lite, 3)
+                     out[k + sfx]["cuda_core_ms"]) = in_turns(call, old[k], 3)
                 else:
                     out[k + sfx]["ms"] = time_ms(call, 3)
             if mma:
@@ -1903,13 +1947,23 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                             "twice": (0.0, bool(torch.equal(calls["lite"](), got)))}}
             out["lite" + sfx]["scaled_err"] = scaled_err(got, ref)
             if lite_by_name:
-                res["lite"]["cuda_core_dgates"] = rel_err(old_lite(), ref, TOL[cd])
+                res["lite"]["cuda_core_dgates"] = rel_err(old["lite"](), ref, TOL[cd])
             del got
             train, ev = calls["fwd"](), calls["fwd_eval"]()
             res["fwd"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, train, want)}
             res["fwd_eval"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, ev, want)}
-            if mma and not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
-                raise AssertionError("the tensor-core wide forward's two variants differ")
+            if fwd_want != "bilstm_fwd_wide":
+                if not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
+                    raise AssertionError(f"{fwd_want}'s two variants differ")
+                for k, first in (("fwd", train), ("fwd_eval", ev)):
+                    res[k]["twice"] = (0.0, all(torch.equal(a, b)
+                                                for a, b in zip(calls[k](), first)))
+                    out[k + sfx]["scaled_err"] = max(scaled_err(a, b)
+                                                     for a, b in zip(first, want))
+            if fwd_by_name:
+                for k in ("fwd", "fwd_eval"):
+                    res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
+                                   for n, a, b in zip(names, old[k](), want)})
             del train, ev
             torch.cuda.synchronize()
             for k, r in res.items():
@@ -1919,7 +1973,7 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                     raise AssertionError(f"{out[k + sfx]['kernel']} disagrees with its twin: "
                                          f"{out[k + sfx]}")
             del want, ref, res
-        del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls, old_lite
+        del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls, old
     size = torch.empty((), dtype=cd).element_size()
     for key, Hw in (("", Hp), ("true_", H)):
         work = wide_layer_work(E, Hw, G, size, ny)
@@ -1927,13 +1981,16 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
             kernel = lite_want if k.startswith("lite") else fwd_want
             out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
                 [(*work[k.replace("_mma", "")], kernel_peak(cd, kernel))])
-    if lite_by_name:
-        out["lite" + sfx]["cuda_core_bound_ms"], _ = bound(
-            [(*wide_layer_work(E, Hp, G, size, ny)["lite"], PEAK_F32_FLOPS)])
+    work = wide_layer_work(E, Hp, G, size, ny)
+    for k in out:
+        if by_name[k.replace("_mma", "")]:
+            out[k]["cuda_core_bound_ms"], _ = bound(
+                [(*work[k.replace("_mma", "")], PEAK_F32_FLOPS)])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k in out:
         out[k]["library_ms"] = lib[{"fwd": "cudnn_fwd_ms", "fwd_eval": "cudnn_inference_ms",
                                     "lite": "cudnn_bwd_data_ms"}[k.replace("_mma", "")]]
+        out[k]["library_fwd_again_ms"] = lib["cudnn_fwd_again_ms"]
     return out
 
 
@@ -2195,8 +2252,7 @@ def lite_f32_96(dev) -> dict:
     return row
 
 
-def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=False,
-                          by_name=False) -> dict:
+def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=False) -> dict:
     """The bf16 resident layer at ``E_parts``, ``H`` (``G`` weight groups,
     ``ny`` dy streams a direction, 400 rows) on a main path of its own: its
     sweep, which the dispatch must name ``sweep_want``, and with
@@ -2207,10 +2263,7 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
     (``cuda_core_bound_ms``: a CUDA-core kernel's at 67 TFLOP/s, its f32
     FMAs), the twin (timed once) and cuDNN's one-layer bf16 training
     forward, inference forward and backward for the input at the layer's
-    widths, TF32 off. With ``by_name`` the forward is also held as
-    ``bilstm_fwd.cu`` by name on the same operands and timed in turns with
-    the tensor-core one (new, old, old, new: ``cuda_core_ms``). One dict
-    each: "bwd", and "fwd", "fwd_eval"."""
+    widths, TF32 off. One dict each: "bwd", and "fwd", "fwd_eval"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
 
@@ -2234,19 +2287,12 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
         fwd_args = (parts, lengths, w_ih, w_hh, bias, cd)
         calls = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
                  "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args)}
-        # the CUDA-core forward asked for by name on the same operands
-        old = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
-               "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")}
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["bwd"] = lambda: L.bilstm_bwd(*args)
         if full:
             for k in out:
-                if k in old and by_name:
-                    out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
-                        calls[k], old[k], 3)
-                else:
-                    out[k]["ms"] = time_ms(calls[k], 3)
+                out[k]["ms"] = time_ms(calls[k], 3)
         else:
             ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
             gnames = sweep_names(*ref[:2])
@@ -2266,9 +2312,6 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
                     res[k]["twice"] = (0.0, all(torch.equal(a, b)
                                                 for a, b in zip(calls[k](), got_f)))
                     out[k]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got_f, want))
-                    if by_name:
-                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
-                                       for n, a, b in zip(names, old[k](), want)})
                     del got_f
                 del want
             torch.cuda.synchronize()
@@ -2279,12 +2322,12 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
                     raise AssertionError(f"{out[k]['kernel']} at E={E_parts}, H={H} disagrees "
                                          f"with its twin: {out[k]}")
             del ref, got, res
-        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, old
+        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls
     work = train_layer_work(E, H, 2, ny, G=G)
     for k in out:
         name = sweep_want if k == "bwd" else fwd_name
         out[k]["bound_ms"], out[k]["bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
-        if name in ("bilstm_fwd", "bilstm_bwd") or (k != "bwd" and by_name):
+        if name in ("bilstm_fwd", "bilstm_bwd"):
             out[k]["cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
@@ -2309,11 +2352,17 @@ def phase_widths(dev) -> dict:
     ``bilstm_bwd.cu`` by name, and ``bilstm_fwd.cu``, its forward there)
     and on the stacked layer of the bf16 model at embedding 16
     (``bilstm_bwd.cu``'s main path); the bf16 two-layer model at embedding
-    72 at the train shape (2 steps and an eval step, timed); ``wide_cuda_core_kernels`` at
-    embedding 272's layer 0 (H = 288, the bf16 tensor-core forward and lite
-    sweep) and at embedding 80's stacked layer (H = 96: the CUDA-core
-    forward in both dtypes, the CUDA-core lite sweep in bf16 and the
-    one-block one in f32);
+    72 at the train shape (2 steps and an eval step, timed); the f32
+    two-layer model at embedding 160 at the train shape (2 steps and an eval
+    step, timed: the f32 tensor-core lite sweep at 160 in both layers);
+    ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, the bf16
+    tensor-core forward and lite sweep), at embedding 80's stacked layer
+    (H = 96: in bf16 the one-block forward, in turns with
+    ``bilstm_fwd_wide.cu`` by name, and lite sweep; in f32 the CUDA-core
+    forward and the one-block lite sweep) and at layer 0 at E = H = 160,
+    192, 224 (in f32 ``bilstm_fwd_wide.cu`` and the f32 tensor-core lite
+    sweep, in turns with ``bilstm_bwd_lite.cu`` by name; in bf16
+    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``, their main path);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -2331,7 +2380,11 @@ def phase_widths(dev) -> dict:
                                       ("embedding_100_bfloat16", torch.bfloat16, 100, WIDE_BF16),
                                       ("embedding_272_bfloat16", torch.bfloat16, 272,
                                        WIDE_288_BF16),
-                                      ("embedding_272_float32", torch.float32, 272, WIDE_F32)):
+                                      ("embedding_272_float32", torch.float32, 272, WIDE_F32),
+                                      ("embedding_160_float32", torch.float32, 160,
+                                       ("bilstm_gates_f32", "bilstm_fwd_wide_train",
+                                        "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
+                                        "bilstm_wgrad_f32"))):
         others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + WIDE_CUDA_CORE) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
@@ -2339,7 +2392,7 @@ def phase_widths(dev) -> dict:
     wide_f32 = wide_f32_kernels(dev)
     lite_96 = lite_f32_96(dev)
     bf16_72 = resident_bf16_kernels(dev, [72], 72, G_TRAIN, 2, SEED + 72, "bilstm_bwd_mma",
-                                    forwards=True, by_name=True)
+                                    forwards=True)
     bwd_16 = resident_bf16_kernels(dev, [16, 16], 16, 1, 1, SEED + 16, "bilstm_bwd")
     # bilstm_fwd.cu's main path since the tensor-core forward took E = H =
     # 80 and 72: layer 0 of the bf16 model at embedding 56
@@ -2347,28 +2400,34 @@ def phase_widths(dev) -> dict:
                                    forwards=True)
     # the bf16 model at embedding 72 at the train shape: layer 0 on the
     # tensor-core forward and sweep (bilstm_fwd.cu and bilstm_bwd.cu never),
-    # the stacked layer wide at 96 on the one-block bf16 lite sweep
-    # (bilstm_bwd_lite.cu never)
+    # the stacked layer wide at 96 on the one-block bf16 wide forward and
+    # lite sweep (bilstm_fwd_wide.cu and bilstm_bwd_lite.cu never)
     models["embedding_72_bfloat16"] = f32_steps(
         dev, batches, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
-                       "bilstm_wgrad_mma", "bilstm_gates_mma", "bilstm_fwd_wide_train",
-                       "bilstm_fwd_wide", "bilstm_bwd_lite_mma_resident"),
+                       "bilstm_wgrad_mma", "bilstm_gates_mma",
+                       "bilstm_fwd_wide_train_mma_resident", "bilstm_fwd_wide_mma_resident",
+                       "bilstm_bwd_lite_mma_resident"),
         ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad",
-         "bilstm_bwd_lite"),
+         "bilstm_bwd_lite", "bilstm_fwd_wide_train", "bilstm_fwd_wide"),
         eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
-                                        "bilstm_fwd_wide", "bilstm_bwd_lite_mma_resident",
-                                        lite_by_name=True)
+                                        "bilstm_fwd_wide_mma_resident",
+                                        "bilstm_bwd_lite_mma_resident", fwd_by_name=True)
     kernels_96_f32 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 52,
                                             "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
                                             torch.float32)
-    # the CUDA-core wide forward and lite sweep in f32 at the widths no
-    # tensor-core kernel takes (layer 0 at E = H, no cell runs them): timed
-    # beside their bounds and cuDNN
+    # layer 0 at E = H = 160, 192, 224, 5 groups: in f32 the CUDA-core wide
+    # forward and the f32 tensor-core lite sweep, in turns with the
+    # CUDA-core one by name; in bf16 both CUDA-core kernels (their main path
+    # since the f32 lite sweep and the one-block bf16 forward took the
+    # others): timed beside their bounds and cuDNN
     kernels_f32_wide = {f"h{H}": wide_cuda_core_kernels(
-        dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide", "bilstm_bwd_lite",
-        torch.float32) for H in (160, 192, 224)}
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
+        torch.float32, lite_by_name=True) for H in (160, 192, 224)}
+    kernels_bf16_wide = {f"h{H}": wide_cuda_core_kernels(
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 54 + H, "bilstm_fwd_wide", "bilstm_bwd_lite",
+        torch.bfloat16) for H in (160, 192, 224)}
     steps = []
     for backend, width, dtype, expect, *never in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -2383,7 +2442,7 @@ def phase_widths(dev) -> dict:
            "bf16_72": bf16_72, "bwd_16": bwd_16, "fwd_56": fwd_56,
            "kernels_288": kernels_288, "kernels_96": kernels_96,
            "kernels_96_float32": kernels_96_f32, "kernels_float32_wide": kernels_f32_wide,
-           "grad_checks": steps}
+           "kernels_bfloat16_wide": kernels_bf16_wide, "grad_checks": steps}
     emit(out)
     return out
 
@@ -2891,6 +2950,14 @@ def phase_wide_kernel(dev) -> dict:
             else:
                 add("gates_library_ms", time_ms(lambda: torch.addmm(b, x, w_t), 3))
             add("wgrad_library_ms", time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3))
+            if bf16:
+                # the tensor-core wgrad in turns with its cuBLAS yardstick on
+                # the same operands (kernel, cuBLAS, cuBLAS, kernel)
+                a, b, c = in_turns(lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
+                                   wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
+                add("wgrad_turns_ms", a)
+                add("wgrad_turns_ms_again", b)
+                add("wgrad_library_turns_ms", c)
             del x, w_t
             lstm = torch.nn.LSTM(sum(E_parts), H, bidirectional=True).to(dev).to(dtype)
             xl = (torch.rand(T_TRAIN, B_TRAIN, sum(E_parts), device=dev) * 2 - 1).to(dtype)
@@ -3893,16 +3960,13 @@ def main() -> int:
     # the CUDA-core forward (both variants): its main path since the
     # tensor-core forward took E = H = 80 and 72 is the bf16 model at
     # embedding 56 (both layers; layer 0 timed), in its gradient and eval
-    # step; by name on layer 0 at embedding 80 and 72, in turns with the
-    # tensor-core forward there
-    f56, f72 = widths["fwd_56"], widths["bf16_72"]
+    # step (no longer asked for by name at 80 and 72)
+    f56 = widths["fwd_56"]
     g56 = next(c for c in widths["grad_checks"]
                if c["backend"] == "layer" and c.get("embedding_size") == 56)
     for key, name, library in (("fwd_eval", "bilstm_layer_fwd", "inference"),
                                ("fwd", "bilstm_layer_fwd_train", "training forward")):
-        e, o80, o72 = f56[key], e80["bfloat16"][key], f72[key]
-        by_name = lambda o: max(v for n, v in o["max_abs_err"].items()  # noqa: E731
-                                if n.startswith("cuda_core_"))
+        e = f56[key]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3912,19 +3976,11 @@ def main() -> int:
             "max_abs_err": max(e["max_abs_err"].values()),
             **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
                                  "library_ms", "scaled_err")},
-            "h80_by_name_ms": o80["cuda_core_ms"],
-            "h80_by_name_bound_ms": o80["cuda_core_bound_ms"],
-            "h80_by_name_max_abs_err": by_name(o80),
-            "h72_by_name_ms": o72["cuda_core_ms"],
-            "h72_by_name_bound_ms": o72["cuda_core_bound_ms"],
-            "h72_by_name_max_abs_err": by_name(o72),
             "work": "layer 0 of the bf16 two-layer model at embedding 56 (E=H=56, 5 groups, two "
                     "dy streams a direction), 400 rows, T=1500; launches: that model's gradient "
                     "and eval step (both layers: E=56 and 56+56); bound at the bf16 rate "
                     "(cuda_core_bound_ms at 67 TFLOP/s, its f32 FMAs); library: cuDNN one-layer "
-                    f"nn.LSTM {library} in bf16 at E=H=56, TF32 off; h80_by_name_* / "
-                    "h72_by_name_*: by name on layer 0 of the bf16 models at embedding 80 and 72 "
-                    "(E=H, 5 groups), in turns with bilstm_fwd_mma, bound at 67 TFLOP/s",
+                    f"nn.LSTM {library} in bf16 at E=H=56, TF32 off",
         })
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"the bf16 model at embedding 56 never ran {name}")
@@ -4100,8 +4156,7 @@ def main() -> int:
                     ("h72", widths["bf16_72"][key],
                      widths["models"]["embedding_72_bfloat16"]["launches"][name])):
                 entry.update({f"{tag}_{k}": o[k] for k in (
-                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                    "library_ms", "scaled_err")})
+                    "ms", "plain_ms", "library_ms", "scaled_err")})
                 entry.update({
                     f"{tag}_bound_ms": o.get(f"{key}_bound_ms", o.get("bound_ms")),
                     f"{tag}_bound_by": o.get(f"{key}_bound_by", o.get("bound_by")),
@@ -4114,14 +4169,18 @@ def main() -> int:
             entry["work"] += ("; h80_* / h72_*: its <80, 80> and <72, 72> instances on layer 0 "
                               "of the bf16 two-layer models at embedding 80 and 72 (E=H, 5 "
                               "groups), 400 rows, T=1500, launches in those models' steps, "
-                              "cuda_core_ms: bilstm_fwd.cu by name in turns (bound at 67 "
-                              "TFLOP/s cuda_core_bound_ms), library: cuDNN one-layer bf16")
+                              "library: cuDNN one-layer bf16")
         else:
             # the scaled step's shapes: layer 0 and one E = 2 x 256 layer at H = 256
             entry.update({f"h256_{k}": w16[f"wgrad_{k}"]
                           for k in ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms",
-                                    "bound_by")})
+                                    "bound_by", "turns_ms", "turns_ms_again",
+                                    "library_turns_ms")})
             entry["h256_launches"] = scaled["launches"][name]
+            entry["work"] += ("; h256_*: the scaled step's layers (layer 0 + one E=2x256 "
+                              "layer), h256_turns_ms / h256_library_turns_ms: in turns with its "
+                              "cuBLAS bf16 products on the same operands (kernel, cuBLAS, "
+                              "cuBLAS, kernel)")
             # layer 0 of the bf16 model at embedding 80 (H = 80: the masked gate tile)
             h80 = e80["bfloat16"]["wgrad"]
             entry.update({f"h80_{k}": h80[k] for k in (
@@ -4144,31 +4203,35 @@ def main() -> int:
         "lite": ("dgates",),
     }
     # the CUDA-core wide forward and lite sweep: the forward's main path is
-    # the stacked layer of the two-layer model at embedding 80 (run at H =
-    # 96) in f32 (the same in bf16: bfloat16_*), the lite sweep's since the
-    # one-block bf16 sweep took 96 layer 0 of the f32 model at embedding 160
-    # (E = H = 160), its gradient and eval step; each by name in bf16 at the
-    # scaled widths in turns with the tensor-core kernel (bf16_h256_ms)
+    # the stacked layer of the f32 two-layer model at embedding 80 (run at H
+    # = 96), the lite sweep's since the f32 tensor-core sweep took f32 at
+    # 160-224 layer 0 of the bf16 model at embedding 160 (E = H = 160), its
+    # gradient and eval step; both timed in bf16 at 160 / 192 / 224 (their
+    # main path, bfloat16_hN_*: the forward's bf16 launches there too); each
+    # by name in bf16 at the scaled widths in turns with the tensor-core
+    # kernel (bf16_h256_ms), the forward in f32 at 160 / 192 / 224
+    # (float32_hN_*) and the lite sweep by name there in turns with the f32
+    # tensor-core one (float32_hN_*)
     f32_scaled = scaled["grad_check"]["launches"]
     lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
     k96, k96_f32 = widths["kernels_96"], widths["kernels_96_float32"]
-    g160 = next(c for c in widths["grad_checks"]
-                if c["backend"] == "layer" and c.get("embedding_size") == 160)
+    kf32, kbf16 = widths["kernels_float32_wide"], widths["kernels_bfloat16_wide"]
+    g160 = {c["dtype"]: c for c in widths["grad_checks"]
+            if c["backend"] == "layer" and c.get("embedding_size") == 160}
     for key, name, source, replaces in (
         ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
         ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
     ):
-        dtype = "float32"
-        main = (widths["kernels_float32_wide"]["h160"] if key == "lite" else k96_f32)[key]
+        main = (kbf16["h160"] if key == "lite" else k96_f32)[key]
         cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{source}",
             "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": g160["launches"].get(name, 0) if key == "lite"
-            else e80_launches[dtype][name],
+            "launches": g160["bfloat16"]["launches"].get(name, 0) if key == "lite"
+            else e80_launches["float32"][name],
             "max_abs_err": max(main["max_abs_err"].values()),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
                                     "library_ms")},
@@ -4176,10 +4239,10 @@ def main() -> int:
             "bf16_h256_max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
                                          for n, v in c["max_abs_err"].items()
                                          if n in cuda_core_errs),
-            "work": ("layer 0 of the f32 two-layer model at embedding 160 (E=H=160, 5 groups, "
+            "work": ("layer 0 of the bf16 two-layer model at embedding 160 (E=H=160, 5 groups, "
                      "two dy streams), 400 rows, T=1500; launches: that model's gradient and "
-                     "eval step (both layers, run at 160); bound at 67 TFLOP/s; library: cuDNN "
-                     "one-layer f32 backward (input) at E=H=160" if key == "lite" else
+                     "eval step (both layers, run at 160); bound at the bf16 rate; library: "
+                     "cuDNN one-layer bf16 backward (input) at E=H=160" if key == "lite" else
                      "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run "
                      "at H=96, one weight group, one dy stream), 400 rows, T=1500, its main path: "
                      "launches in that model's f32 steps; bound at the f32 rate at H=96 "
@@ -4188,34 +4251,75 @@ def main() -> int:
                     + ", TF32 off; bf16_h256_ms: by name on the bf16 scaled step's operands "
                       "(layer 0 + one E=2x256 layer), in turns with the tensor-core kernel",
         }
-        # f32 at 160, 192 and 224 (layer 0 at E = H, 5 groups; no cell runs them)
-        for h, r in widths["kernels_float32_wide"].items():
-            entry.update({f"float32_{h}_{k}": r[key][k] for k in (
+        # bf16 and f32 at 160, 192 and 224 (layer 0 at E = H, 5 groups, two
+        # dy streams); in f32 the lite sweep by name, in turns with the f32
+        # tensor-core one
+        for h, r in kbf16.items():
+            entry.update({f"bfloat16_{h}_{k}": r[key][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            entry[f"float32_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
-        entry["work"] += ("; float32_hN_*: layer 0 at E=H=N in f32 (5 groups, two dy streams), "
-                          "400 rows, T=1500, library: cuDNN one-layer f32 there")
+            entry[f"bfloat16_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
+        for h, r in kf32.items():
+            if key == "lite":
+                o = r["lite"]
+                entry.update({f"float32_{h}_ms": o["cuda_core_ms"],
+                              f"float32_{h}_bound_ms": o["cuda_core_bound_ms"],
+                              f"float32_{h}_library_ms": o["library_ms"],
+                              f"float32_{h}_max_abs_err": o["max_abs_err"]["cuda_core_dgates"]})
+            else:
+                entry.update({f"float32_{h}_{k}": r[key][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_fwd_again_ms")})
+                entry[f"float32_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
+        entry["work"] += ("; bfloat16_hN_* / float32_hN_*: layer 0 at E=H=N (5 groups, two dy "
+                          "streams), 400 rows, T=1500, library: cuDNN one-layer there in that "
+                          "dtype"
+                          + ("; float32_hN_*: by name, in turns with bilstm_bwd_lite_f32, bound "
+                             "at 67 TFLOP/s" if key == "lite" else
+                             "; float32_hN_library_fwd_again_ms: cuDNN's training forward read "
+                             "a second time, after its backward"))
         if key == "lite":
-            # by name at 96 on the bf16 stacked layer at embedding 80, in
-            # turns with the one-block bf16 sweep
-            o = k96["lite"]
-            entry.update({"bfloat16_h96_by_name_ms": o["cuda_core_ms"],
-                          "bfloat16_h96_by_name_bound_ms": o["cuda_core_bound_ms"],
-                          "bfloat16_h96_by_name_max_abs_err": o["max_abs_err"]["cuda_core_dgates"]})
-            entry["work"] += ("; bfloat16_h96_by_name_*: by name on the stacked layer of the "
-                              "bf16 model at embedding 80 (run at 96), in turns with "
-                              "bilstm_bwd_lite_mma_resident, bound at 67 TFLOP/s")
             other_launches = entry["launches"]
         else:
-            o = k96[key]
-            entry.update({f"bfloat16_{k}": o[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms", "library_ms")})
-            entry["bfloat16_max_abs_err"] = max(o["max_abs_err"].values())
-            entry["bfloat16_launches"] = other_launches = e80_launches["bfloat16"][name]
-            entry["work"] += "; bfloat16_*: the same layer in bf16, launches in its bf16 steps"
+            entry["bfloat16_launches"] = other_launches = g160["bfloat16"]["launches"].get(name, 0)
+            entry["work"] += "; bfloat16_launches: the bf16 model at embedding 160's steps"
         if min(entry["launches"], other_launches) <= 0:
             raise AssertionError(f"the models at embedding 80 and 160 never ran {name}")
         kernels.append(entry)
+    # the one-block bf16 wide forward (both variants): its main path is the
+    # stacked layer of the bf16 models at embedding 80 and 72 (run at H = 96)
+    for key, name in (("fwd", "bilstm_fwd_wide_train_mma_resident"),
+                      ("fwd_eval", "bilstm_fwd_wide_mma_resident")):
+        o = k96[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "intrepppid_tpu_torch/csrc/bilstm_fwd_wide_mma_resident.cu",
+            "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:285",
+            "launches": e80_launches["bfloat16"][name],
+            "max_abs_err": max([v for n, v in o["max_abs_err"].items()
+                                if not n.startswith("cuda_core_")]
+                               + [v for c in tk["ragged_checks"]
+                                  if c["kernel"] == "bilstm_fwd_wide_mma_resident"
+                                  for n, v in c["max_abs_err"].items()
+                                  if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")]),
+            **{k: o[k] for k in ("ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms",
+                                 "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+                                 "library_ms", "scaled_err")},
+            "cuda_core_max_abs_err": max(v for n, v in o["max_abs_err"].items()
+                                         if n.startswith("cuda_core_")),
+            "h72_launches": widths["models"]["embedding_72_bfloat16"]["launches"][name],
+            "work": "the stacked layer of the bf16 two-layer model at embedding 80 (E=80+80, run "
+                    "at H=96, one weight group), 400 rows, T=1500; launches in that model's bf16 "
+                    "steps (h72_launches: the bf16 model at embedding 72's, whose stacked layer "
+                    "runs at the same shape); bound at the bf16 rate at H=96 (true_bound_ms at "
+                    "80); cuda_core_ms: bilstm_fwd_wide.cu by name on the same operands (new, "
+                    "old, old, new), its bound at 67 TFLOP/s cuda_core_bound_ms; library: cuDNN "
+                    "one-layer bf16 " + ("training forward" if key == "fwd" else "inference")
+                    + " at E=160, H=80, TF32 off; max_abs_err also over 27 rows in 3 groups at "
+                      "T = 1 and 5",
+        })
+        if min(kernels[-1]["launches"], kernels[-1]["h72_launches"]) <= 0:
+            raise AssertionError(f"the bf16 models at embedding 80 and 72 never ran {name}")
     # the one-block bf16 lite sweep: its main path is the stacked layer of
     # the bf16 models at embedding 80 and 72 (run at H = 96)
     name, o = "bilstm_bwd_lite_mma_resident", k96["lite"]
@@ -4225,22 +4329,19 @@ def main() -> int:
         "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
         "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
         "launches": e80_launches["bfloat16"][name],
-        "max_abs_err": max([v for n, v in o["max_abs_err"].items()
-                            if not n.startswith("cuda_core_")]
+        "max_abs_err": max([v for n, v in o["max_abs_err"].items()]
                            + [v for c in tk["ragged_checks"] if c["kernel"] == name
                               for v in c["max_abs_err"].values()]),
-        **{k: o[k] for k in ("ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                             "bound_ms", "bound_by", "true_bound_ms", "library_ms",
-                             "scaled_err")},
+        **{k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+                             "library_ms", "scaled_err")},
         "h72_launches": widths["models"]["embedding_72_bfloat16"]["launches"][name],
         "work": "the stacked layer of the bf16 two-layer model at embedding 80 (E=80+80, run at "
                 "H=96, one weight group, one dy stream), 400 rows, T=1500; launches in that "
                 "model's bf16 steps (h72_launches: the bf16 model at embedding 72's, whose "
                 "stacked layer runs at the same shape); bound at the bf16 rate at H=96 "
-                "(true_bound_ms at 80); cuda_core_ms: bilstm_bwd_lite.cu by name on the same "
-                "operands (new, old, old, new), its bound at 67 TFLOP/s cuda_core_bound_ms; "
-                "library: cuDNN one-layer bf16 backward (input) at E=160, H=80, TF32 off; "
-                "max_abs_err also over 27 rows in 3 groups at T = 1 and 5",
+                "(true_bound_ms at 80); library: cuDNN one-layer bf16 backward (input) at "
+                "E=160, H=80, TF32 off; max_abs_err also over 27 rows in 3 groups at T = 1 and "
+                "5 (bilstm_bwd_lite.cu is no longer asked for by name at 96 in bf16)",
     })
     if min(kernels[-1]["launches"], kernels[-1]["h72_launches"]) <= 0:
         raise AssertionError("the bf16 models at embedding 80 and 72 never ran the one-block "
@@ -4452,7 +4553,29 @@ def main() -> int:
         entry[f"{key}_max_abs_err"] = r["max_abs_err"]["dgates"]
     entry["h288_launches"] = models["embedding_272_float32"]["launches"][name]
     entry["h128_launches"] = models["embedding_100_float32"]["launches"][name]
-    if min(entry["launches"], entry["h288_launches"], entry["h128_launches"]) <= 0:
+    # its instances for 2 / 3, 3 and 3 / 4 unit groups a block: layer 0 at
+    # E = H = 160, 192, 224 in f32, in turns with bilstm_bwd_lite.cu by name;
+    # launches in the f32 model at embedding 160's timed steps and its
+    # gradient and eval step
+    for h, r in kf32.items():
+        o = r["lite"]
+        entry.update({f"{h}_{k}": o[k] for k in (
+            "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "scaled_err")})
+        entry[f"{h}_max_abs_err"] = max(
+            [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
+            + [v for c in tk["ragged_checks"] if c["kernel"] == name and c["H"] == int(h[1:])
+               for v in c["max_abs_err"].values()])
+    entry["h160_launches"] = models["embedding_160_float32"]["launches"][name]
+    entry["h160_grad_check_launches"] = g160["float32"]["launches"].get(name, 0)
+    entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in f32 (5 groups, two dy "
+                      "streams), 400 rows, T=1500, the row tile of the plan, cuda_core_ms: "
+                      "bilstm_bwd_lite.cu by name on the same operands (new, old, old, new), its "
+                      "bound at 67 TFLOP/s cuda_core_bound_ms, library: cuDNN one-layer f32 "
+                      "backward (input) there; max_abs_err also over 27 rows in 3 groups at "
+                      "T = 1 and 5; h160_launches: the f32 model at embedding 160's timed steps")
+    if min(entry["launches"], entry["h288_launches"], entry["h128_launches"],
+           entry["h160_launches"], entry["h160_grad_check_launches"]) <= 0:
         raise AssertionError("an f32 main path never ran the tensor-core lite sweep")
     kernels.append(entry)
     # the recurrence op: both layers of one recurrence-backend step (layer 0
@@ -4701,7 +4824,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 37 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 39 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -10,7 +10,7 @@
 // and, with bilstm_gates_f32.cu before it and the input-side products and
 // bilstm_wgrad_f32.cu after it (ops/lstm_stack.py), _bwd_kernel with
 // fused_input=True (via _bwd_pallas, :603) at H = 128; for compute dtype
-// float32 at H = 128, 256 and 288 (ops/lstm_cuda.py:lite_kernel).
+// float32 at H = 128, 160, 192, 224, 256 and 288 (ops/lstm_cuda.py:lite_kernel).
 //
 // Function (the contract of ops/lstm.py:bidir_layer_sweep_lite with the
 // compute dtype f32, where round() is the identity): block (row tile,
@@ -38,7 +38,8 @@
 //   * a cluster of 8 blocks per (row tile, direction), 8 warps a block;
 //     block k owns groups [k n / 8, (k + 1) n / 8) of the n = H / 8 unit
 //     groups (lstm_recurrence_wide_mma.cuh:unit_groups): 2 a block at
-//     H = 128, 4 at 256, 4 or 5 at 288;
+//     H = 128, 2 or 3 at 160, 3 at 192, 3 or 4 at 224, 4 at 256, 4 or 5 at
+//     288;
 //   * the weights are not resident: a block's f32 W_hh slice (186,880 B at
 //     288 and 5 groups) leaves no room for the tiles. Both products read
 //     one L2-resident f32 copy of W_hh^T in mma fragment order
@@ -79,14 +80,27 @@
 //     at H = 288 and 32 rows (94,208 at 256, 49,152 at 128). ops/lstm_cuda.py
 //     (wide_plan("lite_f32", ...)) picks the fewest waves, then the smallest
 //     tile: at the train step's 400 rows in 5 groups 32-row tiles make 30
-//     clusters, two waves of 15 (one block an SM: the registers; the 288
-//     instance spills 52 B).
+//     clusters, two waves of 15 (one block an SM: the registers, 232-255 a
+//     thread; the 32-row 288 instance spills 36 B, the others nothing).
 // At 288 a step costs about twice what it does at 256: the 5-group blocks
 // carry 1.25 x the items, and the dh product's 18 m16 tiles leave warps 0-1
 // with 3 of them (15 items against 8 at 256) (PERF.md, chip_smoke.py phase
 // widths).
-// This kernel takes H = 128, 256 and 288; the other f32 wide widths (96,
-// 160, 192, 224) keep bilstm_bwd_lite.cu.
+// At 160, 192 and 224 the cluster splits the 20, 24 and 28 unit groups 2 or
+// 3, 3, and 3 or 4 a block (the MG = 3 instance takes 160 and 192, MG = 4
+// 224, as 256); the slowest block sets the pace through the cluster
+// barriers. A 3-group block deals its 8 warps 3, 3 and 2 to its groups, so
+// at 32-row tiles warps 2, 5, 6 and 7 take two items and the others one;
+// the dh product's 10, 12 and 14 m16 tiles leave 2, 4 and 6 warps a second
+// tile. The dh product takes its warps in order of their gate items (the
+// fewest first, then by index: dh_rank), so the warps with the fewest gate
+// items take its extra tiles (at 192 warps 0, 1, 3 and 4, one item each);
+// at 128, 256 and 288 that order is the warps' own. The two products are
+// separated by block barriers, so a step costs the largest load of each;
+// the order evens what each warp does in a whole step.
+// This kernel takes H = 128, 160, 192, 224, 256 and 288; the f32 wide width
+// 96 keeps bilstm_bwd_lite_f32_resident.cu (W_hh resident in one block), and
+// bilstm_bwd_lite.cu takes the f32 widths 160-224 by name only.
 
 #include <cooperative_groups.h>
 
@@ -202,6 +216,19 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_f32_kernel(const 
   }
   const int nt0 = (warp - first) * NT / wpg, ni = (warp - first + 1) * NT / wpg - nt0;
   const int unit = unit0 + 8 * ug + g;
+  // the dh product's warp order: by gate items, the fewest first, then by
+  // index (every warp computes every warp's item count of the same deal)
+  int dh_rank = 0;
+  {
+    int w = 0;
+    for (int q = 0; q < UG; ++q) {
+      const int m = kWarps / UG + (q < kWarps % UG);
+      for (int k = 0; k < m; ++k, ++w) {
+        const int n = (k + 1) * NT / m - k * NT / m;
+        dh_rank += n < ni || (n == ni && w < warp);
+      }
+    }
+  }
   const uint64_t pol = evict_last_policy();
   const uint4* wdg = a.wf + (size_t)(d * a.G + tr.group) * (H / 8) * (H / 8) * 64 + lane;
   const uint4* wa = wdg + (size_t)(glo + ug) * (H / 8) * 64;  // the group's fragments
@@ -318,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_f32_kernel(const 
     }
   };
 
-  // The dh product of one step: for each m16 tile m = warp + 8 j of the
+  // The dh product of one step: for each m16 tile m = dh_rank + 8 j of the
   // units, c (units x tile rows) = sum over the block's gate columns, A the
   // gate fragments of group glo + ug at chunk m transposed in registers
   // (dh_fragment: row g is unit 16 m + 4 (g >> 1) + (g & 1), row g + 8 the
@@ -327,12 +354,12 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_f32_kernel(const 
   // one (m16 tile, group); two are in flight in rf (dh_prefetch fills them
   // before the cell, each is refilled two items ahead). Each tile's sums go
   // to the partial buffer once its last group is in.
-  const int nmt = H / 16 > warp ? min(MTW, (H / 16 - warp + kWarps - 1) / kWarps) : 0;
+  const int nmt = H / 16 > dh_rank ? min(MTW, (H / 16 - dh_rank + kWarps - 1) / kWarps) : 0;
   const int nit = nmt * UG;
   uint4 rf[2][2][2];  // [slot][kh][mt]
   auto dh_load = [&](uint4 (&r)[2][2], int it) {
     const int j = it / UG, ug = it - j * UG;
-    chunk_load(r, wdg + (size_t)(glo + ug) * (H / 8) * 64, warp + kWarps * j, pol);
+    chunk_load(r, wdg + (size_t)(glo + ug) * (H / 8) * 64, dh_rank + kWarps * j, pol);
   };
   auto dh_prefetch = [&]() {
     if (nit > 0) dh_load(rf[0], 0);
@@ -376,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_f32_kernel(const 
         dh_use(rf[sl], ug, c);
         if (it + 2 < nit) dh_load(rf[sl], it + 2);
         if (ug == UG - 1) {
-          const int u = 16 * (warp + kWarps * j) + 4 * (g >> 1) + (g & 1);
+          const int u = 16 * (dh_rank + kWarps * j) + 4 * (g >> 1) + (g & 1);
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
             *reinterpret_cast<float2*>(part + u * PS + 8 * n + 2 * t) =
@@ -499,7 +526,7 @@ int launch_rows(int rows, const Args& a, int tiles, int smem, cudaStream_t st, i
 }
 
 // The widths and row tiles the kernel is instantiated for.
-constexpr int kWidths[3] = {128, 256, 288};
+constexpr int kWidths[6] = {128, 160, 192, 224, 256, 288};
 constexpr int kRows = (1 << 2) | (1 << 4);  // 16, 32, as bit rows / 8
 
 }  // namespace
@@ -510,7 +537,12 @@ int bilstm_bwd_lite_f32_cluster() { return kWideCluster; }
 int bilstm_bwd_lite_f32_threads() { return kThreads; }
 int bilstm_bwd_lite_f32_pad() { return kFPad; }
 int bilstm_bwd_lite_f32_rows() { return kRows; }
-int bilstm_bwd_lite_f32_widths() { return (kWidths[0] << 20) | (kWidths[1] << 10) | kWidths[2]; }
+// the widths as a bit mask of H / 32 (every width is a multiple of 32)
+int bilstm_bwd_lite_f32_widths() {
+  int mask = 0;
+  for (int h : kWidths) mask |= 1 << (h / 32);
+  return mask;
+}
 
 const char* bilstm_bwd_lite_f32_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -523,7 +555,7 @@ const char* bilstm_bwd_lite_f32_error_string(int err) {
 // of w_hh (2, G, 4H, H) transposed to (2, G, H, 4H)); hs_f, hs_b, cs_f, cs_b
 // and the dy streams (T, B, H) f32 (dy*1 may be null, ny = 0-2 streams per
 // direction); dhn / dcn (2, B, H) f32 or null (zero); dgates (2, T, B, 4H)
-// f32. H = 128, 256 or 288; each of the G weight groups (B / G rows) is cut
+// f32. H is one of kWidths; each of the G weight groups (B / G rows) is cut
 // into its own tiles of `rows` rows: `tiles` = G * ceil(B / G / rows). With
 // max_clusters non-null, nothing is launched: it receives how many clusters
 // the card holds at once. Returns a cudaError_t (0 on success).
@@ -551,6 +583,9 @@ int bilstm_bwd_lite_f32(int rows, const void* xg, const void* lengths, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 128: return launch_rows<2>(rows, a, tiles, smem, st, max_clusters);
+    case 160:
+    case 192: return launch_rows<3>(rows, a, tiles, smem, st, max_clusters);
+    case 224:
     case 256: return launch_rows<4>(rows, a, tiles, smem, st, max_clusters);
     case 288: return launch_rows<5>(rows, a, tiles, smem, st, max_clusters);
     default: return (int)cudaErrorInvalidValue;

@@ -50,17 +50,22 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     Plain twin of both: ``ops/lstm.py:input_gates``.
   * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` are the
     recurrence over those gates with ``W_hh`` split over a cluster of 8
-    blocks, by one of three kernels (``wide_fwd_kernel``):
-    ``bilstm_fwd_wide_mma`` and ``bilstm_fwd_wide_train_mma`` launch
-    ``csrc/bilstm_fwd_wide_mma.cu`` (bf16, H = 128, 256 and 288: the product
-    on the tensor cores; at 288 an instance whose cluster splits the unit
-    groups 4 / 5 a block), ``bilstm_fwd_wide_f32`` and
-    ``bilstm_fwd_wide_train_f32`` launch ``csrc/bilstm_fwd_wide_f32.cu``
-    (f32 at those widths: three tf32 passes on the lite sweep's f32
-    fragment copy of ``W_hh^T``), the two wrappers themselves launch
-    ``csrc/bilstm_fwd_wide.cu`` for the rest (96, 160, 192 and 224; CUDA
-    cores). With ``bilstm_gates``, the counterpart of ``_fwd_pallas`` at
-    these widths. Plain twin of all three: ``ops/lstm.py:bidir_recurrence``.
+    blocks or, at 96 in bf16, in one block, by one of four kernels
+    (``wide_fwd_kernel``): ``bilstm_fwd_wide_mma`` and
+    ``bilstm_fwd_wide_train_mma`` launch ``csrc/bilstm_fwd_wide_mma.cu``
+    (bf16, H = 128, 256 and 288: the product on the tensor cores; at 288 an
+    instance whose cluster splits the unit groups 4 / 5 a block),
+    ``bilstm_fwd_wide_f32`` and ``bilstm_fwd_wide_train_f32`` launch
+    ``csrc/bilstm_fwd_wide_f32.cu`` (f32 at those widths: three tf32 passes
+    on the lite sweep's f32 fragment copy of ``W_hh^T``),
+    ``bilstm_fwd_wide_mma_resident`` and
+    ``bilstm_fwd_wide_train_mma_resident`` launch
+    ``csrc/bilstm_fwd_wide_mma_resident.cu`` (bf16 at 96: one block a row
+    tile, ``W_hh`` as ``mma.sync`` fragments in registers), the two wrappers
+    themselves launch ``csrc/bilstm_fwd_wide.cu`` for the rest (f32 at 96,
+    160, 192 and 224 in either dtype; CUDA cores). With ``bilstm_gates``,
+    the counterpart of ``_fwd_pallas`` at these widths. Plain twin of all
+    four: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
     out), by one of five kernels (``lite_kernel``):
@@ -68,16 +73,16 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     H = 128, 256 and 288: the products on the tensor cores; at 288 an
     instance whose cluster splits the unit groups 4 / 5 a block),
     ``bilstm_bwd_lite_f32`` launches ``csrc/bilstm_bwd_lite_f32.cu`` (f32 at
-    those widths: three tf32 passes on the f32 fragment copy of ``W_hh^T``
-    read from L2, ``recurrence_f32_weights``),
+    those widths and at 160, 192 and 224: three tf32 passes on the f32
+    fragment copy of ``W_hh^T`` read from L2, ``recurrence_f32_weights``),
     ``bilstm_bwd_lite_f32_resident`` launches
     ``csrc/bilstm_bwd_lite_f32_resident.cu`` (f32 at 96: three tf32 passes,
     one block a row tile with ``W_hh`` resident in shared memory),
     ``bilstm_bwd_lite_mma_resident`` launches
     ``csrc/bilstm_bwd_lite_mma_resident.cu`` (bf16 at 96: the same schedule
     in one bf16 pass on the tensor cores), ``bilstm_bwd_lite`` itself
-    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (160, 192 and 224 in
-    either dtype; CUDA cores). Plain twin of all five:
+    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (bf16 at 160, 192 and
+    224; CUDA cores). Plain twin of all five:
     ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
@@ -209,7 +214,8 @@ SMEM_LIMIT = 232448
 # kMinH, kRecMaxH, the row tiles of each instance), bilstm_bwd_lite_f32.cu
 # (kWideCluster, kThreads, kFPad, its row tiles and widths), bilstm_gates_f32.cu
 # (kBM, kBN, kBK, kStages, kSmem), bilstm_fwd_wide_f32.cu (kWideCluster,
-# kThreads, kFPad, its widths and its row tiles)
+# kThreads, kFPad, its widths and its row tiles), bilstm_fwd_wide_mma_resident.cu
+# (kMmaTile, kMaxH, kMaxThreads, kWPad, kFPad, kStages)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -314,8 +320,9 @@ REC_WIDE_F32_FWD_ROWS = {1: (32, 48), 2: (16,)}
 # the f32 tensor-core lite sweep (bilstm_bwd_lite_f32.cu, three tf32 passes
 # on the sweep's f32 fragment copy): the widths and row tiles it is
 # instantiated for (its threads are the bf16 one's, its padding the op
-# sweep's)
-LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 256, 288), (16, 32)
+# sweep's; its clusters split the unit groups 2 / 3 a block at 160, 3 at 192,
+# 3 / 4 at 224)
+LITE_F32_WIDTHS, LITE_F32_ROWS = (128, 160, 192, 224, 256, 288), (16, 32)
 # the f32 tensor-core lite sweep with W_hh resident in one block
 # (bilstm_bwd_lite_f32_resident.cu, three tf32 passes, 8-row tiles, one warp
 # per 8 units): the width it is built for (the f32 weights of 96 units fit a
@@ -326,6 +333,12 @@ LITE_F32_RESIDENT_WIDTHS = (96,)
 # width it is built for (the stacked layer of the bf16 models at embedding
 # 72 and 80, run at 96)
 LITE_MMA_RESIDENT_WIDTHS = (96,)
+# the bf16 tensor-core wide forward with W_hh in one block
+# (bilstm_fwd_wide_mma_resident.cu, 8-row tiles, one warp per 8 units, the
+# weights as mma fragments in registers): the width it is built for (the
+# stacked layer of the bf16 models at embedding 72 and 80, run at 96) and
+# the stages of its cp.async ring of xg tiles
+FWD_WIDE_MMA_RESIDENT_WIDTHS, FWD_WIDE_MMA_RESIDENT_STAGES = (96,), 5
 # the f32 tensor-core input gates (three tf32 passes): the bf16 one's
 # block tile, input columns a stage (64 bytes of a row), cp.async stages,
 # and its dynamic shared memory (f32 rows padded by 4)
@@ -398,6 +411,8 @@ _SIGNATURES = {
                                      [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
     "bilstm_bwd_lite_mma_resident": ("bilstm_bwd_lite_mma_resident",
                                      [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
+    "bilstm_fwd_wide_mma_resident": ("bilstm_fwd_wide_mma_resident",
+                                     [_P] * 9 + [_I] * 7 + [_P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -513,7 +528,7 @@ _CONSTANTS = {
         "cluster", "threads", "pad", "rows", "widths")),
         (WIDE_CLUSTER, LITE_MMA_THREADS, REC_WIDE_F32_PAD,
          sum(1 << (r // 8) for r in LITE_F32_ROWS),
-         sum(h << (10 * (len(LITE_F32_WIDTHS) - 1 - i)) for i, h in enumerate(LITE_F32_WIDTHS)))),
+         sum(1 << (h // 32) for h in LITE_F32_WIDTHS))),
     "bilstm_gates_f32": (tuple(f"bilstm_gates_f32_{c}" for c in (
         "tile_m", "tile_n", "tile_k", "stages", "smem")),
         (GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_F32_TILE_K, GATES_F32_STAGES, GATES_F32_SMEM)),
@@ -532,6 +547,10 @@ _CONSTANTS = {
         "tile", "max_h", "max_threads", "pad", "stages")),
         (MMA_TILE, max(LITE_MMA_RESIDENT_WIDTHS), 4 * max(LITE_MMA_RESIDENT_WIDTHS), MMA_PAD,
          MMA_STAGES)),
+    "bilstm_fwd_wide_mma_resident": (tuple(f"bilstm_fwd_wide_mma_resident_{c}" for c in (
+        "tile", "max_h", "max_threads", "w_pad", "f_pad", "stages")),
+        (MMA_TILE, max(FWD_WIDE_MMA_RESIDENT_WIDTHS), 4 * max(FWD_WIDE_MMA_RESIDENT_WIDTHS),
+         MMA_PAD, REC_MMA_F32_PAD, FWD_WIDE_MMA_RESIDENT_STAGES)),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -1115,8 +1134,9 @@ def lite_mma_check(H: int, dtype: torch.dtype) -> None:
 def lite_f32_check(H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or width the f32 tensor-core lite sweep
     (``csrc/bilstm_bwd_lite_f32.cu``, three tf32 passes) does not take: it
-    takes float32 at H in ``LITE_F32_WIDTHS``, 128, 256 and 288, the widths
-    of the bf16 one."""
+    takes float32 at H in ``LITE_F32_WIDTHS``: 128, 256 and 288, the widths
+    of the bf16 one, and 160, 192 and 224 (2 / 3, 3 and 3 / 4 unit groups a
+    block)."""
     if dtype != torch.float32 or H not in LITE_F32_WIDTHS:
         raise ValueError(
             f"bilstm_bwd_lite_f32 kernel takes float32 with H in {list(LITE_F32_WIDTHS)}, "
@@ -1171,12 +1191,13 @@ def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
     ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
     256 or 288), ``"bilstm_bwd_lite_f32"`` where ``lite_f32_check`` passes
-    (f32 at those widths), ``"bilstm_bwd_lite_f32_resident"`` where
-    ``lite_f32_resident_plan`` takes it (f32 at 96),
-    ``"bilstm_bwd_lite_mma_resident"`` where ``lite_mma_resident_plan``
-    takes it (bf16 at 96), else ``"bilstm_bwd_lite"`` where ``wide_check``
-    passes (the widths the tensor-core sweeps do not take: 160, 192, 224 in
-    either dtype); ValueError naming the refusals otherwise."""
+    (f32 at those widths and at 160, 192 and 224),
+    ``"bilstm_bwd_lite_f32_resident"`` where ``lite_f32_resident_plan``
+    takes it (f32 at 96), ``"bilstm_bwd_lite_mma_resident"`` where
+    ``lite_mma_resident_plan`` takes it (bf16 at 96), else
+    ``"bilstm_bwd_lite"`` where ``wide_check`` passes (the widths the
+    tensor-core sweeps do not take: bf16 at 160, 192 and 224); ValueError
+    naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
                         ("bilstm_bwd_lite_f32", lite_f32_check),
@@ -1220,17 +1241,39 @@ def fwd_wide_f32_check(H: int, dtype: torch.dtype) -> None:
             f"got {dtype}, H={H}")
 
 
+def fwd_wide_mma_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the bf16 tensor-core wide forward with
+    ``W_hh`` in one block (``csrc/bilstm_fwd_wide_mma_resident.cu``), or
+    ValueError for a dtype or width it does not take: it takes bfloat16 at
+    H in ``FWD_WIDE_MMA_RESIDENT_WIDTHS`` (96). One warp per 8 hidden units;
+    the weights as ``mma.sync`` fragments in registers; shared memory for
+    two bf16 h tiles (8 rows of H + 8) and the ``FWD_WIDE_MMA_RESIDENT_STAGES``
+    stages of its cp.async ring of f32 xg tiles (8 rows of 4H + 4)."""
+    if dtype != torch.bfloat16 or H not in FWD_WIDE_MMA_RESIDENT_WIDTHS:
+        raise ValueError(
+            f"bilstm_fwd_wide_mma_resident kernel takes bfloat16 with H in "
+            f"{list(FWD_WIDE_MMA_RESIDENT_WIDTHS)}, got {dtype}, H={H}")
+    smem = (2 * MMA_TILE * (H + MMA_PAD) * 2
+            + FWD_WIDE_MMA_RESIDENT_STAGES * MMA_TILE * (4 * H + REC_MMA_F32_PAD) * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bilstm_fwd_wide_mma_resident kernel: H={H} needs {smem} bytes of "
+                         f"shared memory (at most {SMEM_LIMIT})")
+    return 4 * H, smem
+
+
 def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
     (bf16, H = 128, 256 or 288), ``"bilstm_fwd_wide_f32"`` where
-    ``fwd_wide_f32_check`` passes (f32 at those widths), else
-    ``"bilstm_fwd_wide"`` where ``wide_check`` passes (the widths the
-    tensor-core forwards do not take: 96, 160, 192, 224 in either dtype);
-    ValueError naming the refusals otherwise."""
+    ``fwd_wide_f32_check`` passes (f32 at those widths),
+    ``"bilstm_fwd_wide_mma_resident"`` where ``fwd_wide_mma_resident_plan``
+    takes it (bf16 at 96), else ``"bilstm_fwd_wide"`` where ``wide_check``
+    passes (the widths the tensor-core forwards do not take: f32 at 96, 160,
+    192, 224 in either dtype); ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
-                        ("bilstm_fwd_wide_f32", fwd_wide_f32_check)):
+                        ("bilstm_fwd_wide_f32", fwd_wide_f32_check),
+                        ("bilstm_fwd_wide_mma_resident", fwd_wide_mma_resident_plan)):
         try:
             check(H, dtype)
             return name
@@ -1555,10 +1598,12 @@ def _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel: Optional[str]) -> str:
     if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma", "bilstm_fwd_f32"):
         raise ValueError(f"bilstm_layer_fwd: no forward kernel named {kernel!r}")
     E_parts, H = [p.shape[-1] for p in x_parts], w_hh.shape[-1]
-    if kernel == "bilstm_fwd" and compute_dtype == torch.float32 and H > MMA_MAX_H \
-            and fwd_kernel(E_parts, H, compute_dtype) == "bilstm_fwd_f32":
-        raise ValueError("bilstm_layer_fwd: csrc/bilstm_fwd.cu is not asked for by name where "
-                         f"the f32 tensor-core forward takes H={H} past {MMA_MAX_H}")
+    if kernel == "bilstm_fwd" and H > MMA_MAX_H:
+        took = {"bilstm_fwd_f32": "f32", "bilstm_fwd_mma": "bf16"}.get(
+            fwd_kernel(E_parts, H, compute_dtype))
+        if took:
+            raise ValueError("bilstm_layer_fwd: csrc/bilstm_fwd.cu is not asked for by name "
+                             f"where the {took} tensor-core forward takes H={H} past {MMA_MAX_H}")
     return kernel or fwd_kernel(E_parts, H, compute_dtype)
 
 
@@ -1585,9 +1630,9 @@ def bilstm_layer_fwd(
     shapes and dtype: a tensor-core one through :func:`bilstm_layer_fwd_mma`
     (bf16) or :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` then
     counts it, or ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks
-    for the latter by name (to time it beside the others: in bf16 at E = H =
-    80 and 72 too; not in f32 at H = 80, where the f32 tensor-core forward
-    took over); a shape it does not take raises.
+    for the latter by name (to time it beside the others; not past H = 64
+    where a tensor-core forward took over: f32 at H = 80, bf16 at E = H = 80
+    and 72); a shape it does not take raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
@@ -2275,18 +2320,23 @@ def _wide_operands(xg, lengths, w_hh, cd, what):
     return dev, T, B, H, G, w_hh
 
 
+def _wide_fwd_outputs(T, B, H, cd, dev, with_states):
+    """A wide forward's outputs, empty: ``hs_f, hs_b, hn, cn`` and, with
+    ``with_states``, ``cs_f, cs_b``."""
+    hs = torch.empty((T, B, H), dtype=cd, device=dev)
+    hn = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    states = (torch.empty_like(hs), torch.empty_like(hs)) if with_states else ()
+    return (hs, torch.empty_like(hs), hn, torch.empty_like(hn)) + states
+
+
 def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
     """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide",
     "bilstm_fwd_wide_mma" or "bilstm_fwd_wide_f32") on the row tile its plan
     picks, counted on ``wrapper``; an empty batch launches nothing."""
     dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
-    hs_f = torch.empty((T, B, H), dtype=cd, device=dev)
-    hs_b = torch.empty_like(hs_f)
-    cs_f = torch.empty_like(hs_f) if with_states else None
-    cs_b = torch.empty_like(hs_f) if with_states else None
-    hn = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    cn = torch.empty_like(hn)
-    outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
+    outs = _wide_fwd_outputs(T, B, H, cd, dev, with_states)
+    hs_f, hs_b, hn, cn = outs[:4]
+    cs_f, cs_b = outs[4:] if with_states else (None, None)
     if B == 0:
         return outs
     if name == "bilstm_fwd_wide_f32":
@@ -2311,8 +2361,9 @@ def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
 def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
     """``wrappers``: the CUDA-core wrapper, which counts
     ``csrc/bilstm_fwd_wide.cu``, then the tensor-core ones by kernel name."""
-    wrapper, tensor_core = wrappers[0], dict(zip(("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32"),
-                                                  wrappers[1:]))
+    wrapper, tensor_core = wrappers[0], dict(zip(
+        ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_mma_resident"),
+        wrappers[1:]))
     if kernel not in (None, "bilstm_fwd_wide", *tensor_core):
         raise ValueError(f"bilstm_fwd_wide: no wide forward kernel named {kernel!r}")
     name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
@@ -2345,15 +2396,17 @@ def bilstm_fwd_wide(
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
     its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
-    (bf16 at H = 128, 256 and 288) or :func:`bilstm_fwd_wide_f32` (f32 there;
-    their ``.launches`` then count them), or ``csrc/bilstm_fwd_wide.cu``
-    here. ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16
-    at 128 and 256 (to time it beside the others); it takes no width past
-    256 and no f32 width of the f32 tensor-core forward.
+    (bf16 at H = 128, 256 and 288), :func:`bilstm_fwd_wide_f32` (f32 there)
+    or :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their ``.launches``
+    then count them), or ``csrc/bilstm_fwd_wide.cu`` here.
+    ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16 at 96,
+    128 and 256 (to time it beside the others); it takes no width past 256
+    and no f32 width of the f32 tensor-core forward.
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
-    return _fwd_wide_dispatch((bilstm_fwd_wide, bilstm_fwd_wide_mma, bilstm_fwd_wide_f32), xg,
+    return _fwd_wide_dispatch((bilstm_fwd_wide, bilstm_fwd_wide_mma, bilstm_fwd_wide_f32,
+                               bilstm_fwd_wide_mma_resident), xg,
                               lengths, w_hh, compute_dtype, kernel, False)
 
 
@@ -2369,13 +2422,14 @@ def bilstm_fwd_wide_train(
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_fwd_wide`: also the cell streams
     ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``; its
-    tensor-core kernels through :func:`bilstm_fwd_wide_train_mma` and
-    :func:`bilstm_fwd_wide_train_f32`."""
+    tensor-core kernels through :func:`bilstm_fwd_wide_train_mma`,
+    :func:`bilstm_fwd_wide_train_f32` and
+    :func:`bilstm_fwd_wide_train_mma_resident`."""
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
     return _fwd_wide_dispatch(
-        (bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32), xg,
-        lengths, w_hh, compute_dtype, kernel, True)
+        (bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32,
+         bilstm_fwd_wide_train_mma_resident), xg, lengths, w_hh, compute_dtype, kernel, True)
 
 
 bilstm_fwd_wide_train.launches = 0
@@ -2466,6 +2520,70 @@ def bilstm_fwd_wide_train_f32(
 bilstm_fwd_wide_train_f32.launches = 0
 
 
+def _fwd_wide_mma_resident(wrapper, xg, lengths, w_hh, cd, with_states):
+    """The one-block wide forward's body: ``wrapper`` counts its launches.
+    On the CPU the plain twin; under grad mode an operand that requires
+    grad is refused; an empty batch launches nothing."""
+    _no_graph(xg, w_hh)
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, cd, with_states=with_states)
+    name = "bilstm_fwd_wide_mma_resident"
+    threads, smem = fwd_wide_mma_resident_plan(xg.shape[-1] // 4, cd)
+    dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
+    outs = _wide_fwd_outputs(T, B, H, cd, dev, with_states)
+    hs_f, hs_b, hn, cn = outs[:4]
+    cs_f, cs_b = outs[4:] if with_states else (None, None)
+    if B == 0:
+        return outs
+    with torch.cuda.device(dev):
+        err = _kernels(name).bilstm_fwd_wide_mma_resident(
+            xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), hs_f.data_ptr(),
+            hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b), hn.data_ptr(), cn.data_ptr(),
+            T, B, H, G, mma_tiles(B, G), threads, smem,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    wrapper.launches += 1
+    return outs
+
+
+def bilstm_fwd_wide_mma_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's recurrence over its input gates in bf16 on the tensor
+    cores, one block a row tile with ``W_hh`` resident as ``mma.sync``
+    fragments in registers (``csrc/bilstm_fwd_wide_mma_resident.cu``), eval
+    variant; the contract of :func:`bilstm_fwd_wide`. Takes the widths
+    ``fwd_wide_mma_resident_plan`` takes (bfloat16, H = 96) and raises for
+    the rest. Row tiles of 8 are cut inside each weight group, so nothing is
+    padded. Its outputs carry no graph, so under grad mode it refuses an
+    operand that requires grad, on the CPU too."""
+    return _fwd_wide_mma_resident(bilstm_fwd_wide_mma_resident, xg, lengths, w_hh,
+                                  compute_dtype, False)
+
+
+bilstm_fwd_wide_mma_resident.launches = 0
+
+
+def bilstm_fwd_wide_train_mma_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_fwd_wide_mma_resident`: also the
+    cell streams ``cs_f, cs_b (T, B, H)`` in bfloat16, after ``hn, cn``. It
+    gives the eval variant's ``hs`` bit for bit."""
+    return _fwd_wide_mma_resident(bilstm_fwd_wide_train_mma_resident, xg, lengths, w_hh,
+                                  compute_dtype, True)
+
+
+bilstm_fwd_wide_train_mma_resident.launches = 0
+
+
 def _lite_operands(what, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd):
     """Checked operands of a lite sweep kernel: ``(dev, T, B, H, G, w_hh)``."""
     if len(dyf) != len(dyb) or len(dyf) > 2:
@@ -2506,9 +2624,10 @@ def bilstm_bwd_lite(
     :func:`bilstm_bwd_lite_f32_resident` (f32 at 96) or
     :func:`bilstm_bwd_lite_mma_resident` (bf16 at 96; their ``.launches``
     then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
-    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 96,
-    128 and 256 (to time it beside the others); it takes no width past 256
-    and no f32 width of the f32 tensor-core sweeps (128, 256, 288 and 96)."""
+    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128
+    and 256 and in f32 at 160, 192 and 224 (to time it beside the others);
+    it takes no width past 256, not bf16 at 96 and no f32 width the f32
+    tensor-core sweeps took before 160-224 (128, 256, 288 and 96)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
@@ -2525,11 +2644,11 @@ def bilstm_bwd_lite(
         return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
                                    dcn, cd)
     H = xg.shape[-1] // 4
-    f32_widths = LITE_F32_WIDTHS + LITE_F32_RESIDENT_WIDTHS
-    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in f32_widths):
+    retired = {torch.float32: (96, 128, 256), torch.bfloat16: LITE_MMA_RESIDENT_WIDTHS}
+    if H > WIDE_SMALL_THREADS or H in retired.get(cd, ()):
         raise ValueError(f"bilstm_bwd_lite: csrc/bilstm_bwd_lite.cu takes H <= "
-                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(f32_widths)}, "
-                         f"got {cd}, H={H}")
+                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(retired[torch.float32])} "
+                         f"and bf16 outside {list(retired[torch.bfloat16])}, got {cd}, H={H}")
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
                                            cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)

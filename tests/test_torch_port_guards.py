@@ -65,7 +65,7 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
                        "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma",
-                       "bilstm_bwd_lite_mma_resident"}
+                       "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_mma_resident"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -90,6 +90,7 @@ def test_every_kernel_source_is_built_and_bound():
                       ("bilstm_bwd_f32_onestage", "mma_tf32("),
                       ("bilstm_bwd_lite_f32_resident", "mma_tf32("),
                       ("bilstm_bwd_lite_mma_resident", "mma_bf16("),
+                      ("bilstm_fwd_wide_mma_resident", "mma_bf16("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
         text = kernel_source(name)
         assert '#include "bilstm_mma.cuh"' in text and mma in text
@@ -101,6 +102,12 @@ def test_every_kernel_source_is_built_and_bound():
     text = kernel_source("bilstm_bwd_lite_mma_resident").rsplit("#include", 1)[1]
     assert text.count("mma_bf16(") == 3 and text.count("ldmatrix_x4_trans(") == 1
     assert "pair_sync(" in text and "bar.sync" in text and "cp_async16(" in text
+    # the one-block bf16 wide forward: its gate product's two chains on
+    # mma.sync from register fragments, no second product and no shared
+    # weight copy, the xg tiles through a cp.async ring
+    text = kernel_source("bilstm_fwd_wide_mma_resident").rsplit("#include", 1)[1]
+    assert text.count("mma_bf16(") == 2 and "ldmatrix_x4(" in text and "cp_async16(" in text
+    assert "ldmatrix_x4_trans(" not in text and "w_s" not in text.split()
     # the tensor-core lite sweep keeps the 8-block cluster split: both of its
     # products on mma.sync (the dh product through ldmatrix.trans), the
     # partial sums exchanged through distributed shared memory; so does its

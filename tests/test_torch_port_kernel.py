@@ -1512,9 +1512,11 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (256, torch.float32, "bilstm_bwd_lite_f32"),  # three tf32 passes
         (128, torch.float32, "bilstm_bwd_lite_f32"),
         (96, torch.float32, "bilstm_bwd_lite_f32_resident"),  # W_hh resident in one block
-        (160, torch.float32, "bilstm_bwd_lite"),   # f32 keeps the CUDA-core sweep here
-        (224, torch.float32, "bilstm_bwd_lite"),
-        (192, torch.float32, "bilstm_bwd_lite"),
+        # f32 at 160-224: the f32 tensor-core sweep's instances for 2 / 3, 3
+        # and 3 / 4 unit groups a block (ids kept from the CUDA-core sweep's cases)
+        pytest.param(160, torch.float32, "bilstm_bwd_lite_f32", id="160-dtype5-bilstm_bwd_lite"),
+        pytest.param(224, torch.float32, "bilstm_bwd_lite_f32", id="224-dtype6-bilstm_bwd_lite"),
+        pytest.param(192, torch.float32, "bilstm_bwd_lite_f32", id="192-dtype7-bilstm_bwd_lite"),
         (192, torch.bfloat16, "bilstm_bwd_lite"),  # m16 tiles not even over 8 warps
         (96, torch.bfloat16, "bilstm_bwd_lite_mma_resident"),  # W_hh resident in one block
         (32, torch.bfloat16, "bilstm_bwd_lite"),
@@ -1523,6 +1525,8 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         (288, torch.bfloat16, "bilstm_bwd_lite_mma"),  # 4 or 5 unit groups a block
         (320, torch.float32, None),
         (256, torch.float16, None),
+        (160, torch.bfloat16, "bilstm_bwd_lite"),  # bf16 keeps the CUDA-core sweep at 160-224
+        (224, torch.bfloat16, "bilstm_bwd_lite"),
     ],
 )
 def test_lite_kernel_by_width_and_dtype(H, dtype, kernel):
@@ -1575,8 +1579,9 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates_f32")
             assert lite == ("bilstm_bwd_lite_f32_resident" if (H, bf16) == (96, False)
                             else "bilstm_bwd_lite_mma_resident" if H == 96
-                            else "bilstm_bwd_lite" if H not in (128, 256, 288)
-                            else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
+                            else "bilstm_bwd_lite_f32" if not bf16 and H % 32 == 0 and H >= 128
+                            else "bilstm_bwd_lite" if not bf16 or H not in (128, 256, 288)
+                            else "bilstm_bwd_lite_mma")
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
 
@@ -1645,13 +1650,18 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (256, torch.float32, "bilstm_fwd_wide_f32"),  # three tf32 passes
         (128, torch.float32, "bilstm_fwd_wide_f32"),
         (192, torch.bfloat16, "bilstm_fwd_wide"),  # 8 warps not even over 3 unit groups
-        (96, torch.bfloat16, "bilstm_fwd_wide"),   # no whole 8-unit groups a block
+        # bf16 at 96: one block, W_hh in registers (id kept from the cluster kernel's case)
+        pytest.param(96, torch.bfloat16, "bilstm_fwd_wide_mma_resident",
+                     id="96-dtype5-bilstm_fwd_wide"),
         (32, torch.bfloat16, "bilstm_fwd_wide"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_fwd_wide_f32"),  # 4 or 5 unit groups a block
         (288, torch.bfloat16, "bilstm_fwd_wide_mma"),  # its instance for uneven groups
         (320, torch.float32, None),
         (256, torch.float16, None),
+        (96, torch.float32, "bilstm_fwd_wide"),  # f32 at 96 keeps the cluster kernel
+        (160, torch.bfloat16, "bilstm_fwd_wide"),
+        (224, torch.float32, "bilstm_fwd_wide"),
     ],
 )
 def test_wide_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
@@ -1668,7 +1678,8 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     a route and never move a layer between routes, over the sweep of
     ``test_tensor_core_wide_kernels_change_no_route``: every (E_parts, H)
     keeps its route, every wide layer has a forward kernel (the tensor-core
-    one in bf16 at H = 128, 256 and 288), and every layer whose widths are whole
+    one in bf16 at H = 128, 256 and 288, the one-block one in bf16 at 96),
+    and every layer whose widths are whole
     128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
     too), in bf16 every layer with H % 8 == 0 (the masked last gate tile);
     the others keep ``bilstm_wgrad.cu``. Each at the layer's padded shape,
@@ -1683,7 +1694,8 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                 continue
             if route == "wide":
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
-                    "bilstm_fwd_wide" if H not in (128, 256, 288)
+                    "bilstm_fwd_wide_mma_resident" if (H, bf16) == (96, True)
+                    else "bilstm_fwd_wide" if H not in (128, 256, 288)
                     else "bilstm_fwd_wide_mma" if bf16 else "bilstm_fwd_wide_f32")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
             if H % 32 == 0 or (bf16 and H % 8 == 0):
@@ -2006,8 +2018,8 @@ def test_lite_f32_resident_plan_and_dispatch():
     the dgates tile (8 rows of 388), two h_prev stages and the warp pairs'
     exchange: 181,888 bytes, one block an SM; 8-row tiles make 100 blocks at
     400 rows in one group. At 112 the weights alone would not fit. f32 at
-    160, 192 and 224 keeps the CUDA-core sweep; bf16 at 96 takes the
-    one-block bf16 sweep."""
+    160, 192 and 224 takes the f32 tensor-core (cluster) sweep; bf16 at 96
+    takes the one-block bf16 sweep."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert lstm_cuda.lite_kernel(96, f32) == "bilstm_bwd_lite_f32_resident"
     threads, smem = lstm_cuda.lite_f32_resident_plan(96, f32)
@@ -2017,7 +2029,7 @@ def test_lite_f32_resident_plan_and_dispatch():
     assert 4 * 112 * (128 + 8) * 4 > lstm_cuda.SMEM_LIMIT
     assert 2 * lstm_cuda.mma_tiles(400, 1) == 100
     for H in (160, 192, 224):
-        assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite"
+        assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite_f32"
     assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite_mma_resident"
     for H, dtype in ((96, bf16), (128, f32), (160, f32), (64, f32)):
         with pytest.raises(ValueError, match="bilstm_bwd_lite_f32_resident kernel takes float32"):
@@ -2086,8 +2098,8 @@ def test_lite_mma_resident_plan_and_dispatch():
     two dy streams at stride 104 in bf16 and of xg at 388 in f32: 19,072
     bytes) and the warp pairs' exchange: 158,848 bytes; 1152 tile chunks a
     step at most, 3 a thread; 100 blocks at 400 rows in one group. f32 at
-    96 keeps its own one-block sweep, and 160, 192 and 224 the CUDA-core
-    sweep in both dtypes."""
+    96 keeps its own one-block sweep; at 160, 192 and 224 bf16 keeps the
+    CUDA-core sweep and f32 takes the f32 tensor-core one."""
     f32, bf16 = torch.float32, torch.bfloat16
     threads, smem = lstm_cuda.lite_mma_resident_plan(96, bf16)
     assert threads == 384 == 4 * 96
@@ -2099,8 +2111,8 @@ def test_lite_mma_resident_plan_and_dispatch():
     assert lstm_cuda.lite_kernel(96, bf16) == "bilstm_bwd_lite_mma_resident"
     assert lstm_cuda.lite_kernel(96, f32) == "bilstm_bwd_lite_f32_resident"
     for H in (160, 192, 224):
-        for dtype in (f32, bf16):
-            assert lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite"
+        assert lstm_cuda.lite_kernel(H, bf16) == "bilstm_bwd_lite"
+        assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite_f32"
     for H, dtype in ((96, f32), (128, bf16), (160, bf16), (64, bf16), (80, bf16)):
         with pytest.raises(ValueError, match="bilstm_bwd_lite_mma_resident kernel takes bfloat16"):
             lstm_cuda.lite_mma_resident_plan(H, dtype)
@@ -2153,6 +2165,141 @@ def test_fwd_mma_wrappers_at_80_and_72_take_plain_versions_on_cpu(E_parts, H):
                 lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd")):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
+
+
+# ------ the f32 lite sweep at 160-224 and the one-block bf16 wide forward at 96
+def _lite_f32_deal(H, rank, BR):
+    """The f32 lite sweep's deal in block ``rank`` of the cluster at a row
+    tile of BR (``csrc/bilstm_bwd_lite_f32.cu``): each warp's gate items
+    (its unit group and n8 tiles) and its m16 tiles of the dh product, by
+    the kernel's arithmetic."""
+    n, warps, NT = H // 8, 8, BR // 8
+    UG = (rank + 1) * n // 8 - rank * n // 8
+    items, w = [], 0
+    for q in range(UG):
+        m = warps // UG + (q < warps % UG)
+        for k in range(m):
+            items.append((q, (k + 1) * NT // m - k * NT // m))
+            w += 1
+    ni = [c for _, c in items]
+    rank_of = [sum(ni[x] < ni[w] or (ni[x] == ni[w] and x < w) for x in range(warps))
+               for w in range(warps)]
+    dh = [len(range(r, H // 16, warps)) for r in rank_of]
+    return UG, items, dh
+
+
+@pytest.mark.parametrize("H", [160, 192, 224])
+def test_lite_f32_at_160_to_224_plan_and_dispatch(H):
+    """The f32 lite sweep at 160, 192 and 224 (layer 0 of the f32 models at
+    embedding 160-224, and the stacked layers run there) takes the f32
+    tensor-core sweep: its instance for 3 groups a block at 160 and 192
+    (``max_block_groups``), the 256 one's 4 at 224. The deal, as the
+    kernel computes it, in every block and row tile: the unit groups split
+    2 / 3, 3 and 3 / 4 a block; every warp's items lie in one group and are
+    at most GI = ceil(NT / (8 // MG)) (two at 32-row tiles), every n8 tile
+    of every group is taken once; the dh product's H / 16 m16 tiles are
+    dealt once each, two to a warp at most, and its extra tiles go to the
+    warps with the fewest gate items (at 192: warps 0, 1, 3 and 4, one item
+    each). bf16 keeps the CUDA-core sweep there; no layer changes route."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert lstm_cuda.lite_kernel(H, f32) == "bilstm_bwd_lite_f32"
+    assert lstm_cuda.lite_kernel(H, bf16) == "bilstm_bwd_lite"
+    MG = -(-H // 64)
+    assert MG == (3 if H < 224 else 4)
+    groups = set()
+    for BR in lstm_cuda.LITE_F32_ROWS:
+        NT, GI = BR // 8, -(-(BR // 8) // (8 // MG))
+        for rank in range(8):
+            UG, items, dh = _lite_f32_deal(H, rank, BR)
+            assert len(items) == 8 and UG <= MG
+            groups.add(UG)
+            assert max(c for _, c in items) <= GI <= 2
+            assert [sum(c for q2, c in items if q2 == q) for q in range(UG)] == [NT] * UG
+            assert sum(dh) == H // 16 and max(dh) <= 2
+            if BR == 32:
+                most = max(c for _, c in items)
+                fewest = min(c for _, c in items)
+                extra = {w for w in range(8) if dh[w] == 2}
+                # the extra dh tiles go to the warps with the fewest items first
+                light = {w for w in range(8) if items[w][1] == fewest}
+                assert light <= extra if len(extra) >= len(light) else extra <= light
+                if H == 192:
+                    assert extra == {0, 1, 3, 4} and most == 2
+                    assert all(items[w][1] == 1 for w in extra)
+    assert groups == {160: {2, 3}, 192: {3}, 224: {3, 4}}[H]
+    for E_parts in ([H], [H, H]):
+        assert lstm_cuda.layer_route(E_parts, H, f32) == "wide"
+        assert lstm_cuda.padded_width(E_parts, H, f32) == H
+
+
+def test_lite_f32_deal_at_the_older_widths_is_the_warps_own_order():
+    """At 128, 256 and 288 the dh product's warp order (by gate items) is
+    the warps' own, so the f32 lite sweep's schedule there is unchanged:
+    the dh product's extra m16 tiles stay on warps 0 and 1 at 288."""
+    for H in (128, 256, 288):
+        for rank in range(8):
+            for BR in lstm_cuda.LITE_F32_ROWS:
+                _, items, dh = _lite_f32_deal(H, rank, BR)
+                want = [len(range(w, H // 16, 8)) for w in range(8)]
+                assert dh == want, (H, rank, BR)
+
+
+def test_fwd_wide_mma_resident_plan_and_dispatch():
+    """The bf16 wide forward at H = 96 (the stacked layer of the bf16 models
+    at embedding 80 and 72, run at 96) takes the one-block tensor-core
+    forward: 12 warps, one per 8 units, 384 threads; the weights in
+    registers (2 m16 tiles x 6 k16 steps x 4 = 48 a thread); shared memory
+    for two bf16 h tiles (8 rows of 104) and five ring stages of the f32 xg
+    tile (8 rows of 388): 3,328 + 62,080 = 65,408 bytes; 100 blocks at 400
+    rows in one group. f32 at 96 and both dtypes at 160-224 keep the
+    CUDA-core cluster kernel; no layer changes route or padded shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    threads, smem = lstm_cuda.fwd_wide_mma_resident_plan(96, bf16)
+    assert threads == 384 == 4 * 96 and 2 * 4 * 6 * 4 // 4 == 48
+    assert smem == 2 * 8 * 104 * 2 + 5 * 8 * 388 * 4 == 65408 <= lstm_cuda.SMEM_LIMIT
+    assert 8 * 4 * 96 == 2 * threads * 4  # two 16-byte xg chunks a thread a step
+    assert lstm_cuda.FWD_WIDE_MMA_RESIDENT_WIDTHS == (96,)
+    assert 2 * lstm_cuda.mma_tiles(400, 1) == 100
+    assert lstm_cuda.wide_fwd_kernel(96, bf16) == "bilstm_fwd_wide_mma_resident"
+    assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide"
+    for H in (160, 192, 224):
+        for dtype in (f32, bf16):
+            assert lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide"
+    for H, dtype in ((96, f32), (128, bf16), (160, bf16), (64, bf16), (80, bf16)):
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma_resident kernel takes bfloat16"):
+            lstm_cuda.fwd_wide_mma_resident_plan(H, dtype)
+    for E_parts, H in (([80, 80], 80), ([72, 72], 72)):
+        assert lstm_cuda.layer_route(E_parts, H, bf16) == "wide"
+        assert lstm_cuda.padded_width(E_parts, H, bf16) == 96
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_fwd_wide_mma_resident_wrappers_take_plain_versions_on_cpu(G):
+    """On the CPU the one-block bf16 wide forward (both variants), the
+    dispatch and the cluster kernel asked for by name run the plain twin
+    bit for bit and launch nothing; under grad mode the wrappers refuse an
+    operand that requires grad."""
+    cpu, cd, H = torch.device("cpu"), torch.bfloat16, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 9, [32, 32], H, G, cd, cpu)
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident)
+    before = [f.launches for f in wrappers]
+    for got in (lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
+    for fwd in wrappers[2:]:
+        with pytest.raises(RuntimeError, match="no autograd graph"):
+            fwd(xg.clone().requires_grad_(), lengths, w_hh, cd)
+        with torch.no_grad():
+            fwd(xg, lengths, w_hh.clone().requires_grad_(), cd)
 
 
 # ------------------------------------------------------------ on the card
@@ -2927,7 +3074,8 @@ def test_fwd_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     rows 8-15 short of T so a tile stops at its longest row; at E = H = 80
     and 72 its 320- and 288-thread instances (K = 144 in nine k16 steps).
     The dispatch hands ``bilstm_layer_fwd(_train)`` to it; the CUDA-core
-    forward asked for by name agrees too."""
+    forward asked for by name agrees too up to H = 64, and past it (E = H =
+    80 and 72, retired there) refuses before any launch."""
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
                                                            seed=T + B)
@@ -2943,6 +3091,12 @@ def test_fwd_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 3e-2)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
+    if H > 64:
+        for fwd in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd):
+            with pytest.raises(ValueError, match="not asked for by name"):
+                fwd(*args, kernel="bilstm_fwd")
+        assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
+        return
     _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 3e-2)
     _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 3e-2)
     torch.cuda.synchronize()
@@ -3471,19 +3625,23 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     ones), the stacked layer padded to 96 on the wide route (its lite sweep
     in f32 the one-block ``bilstm_bwd_lite_f32_resident.cu``, in bf16 the
     one-block ``bilstm_bwd_lite_mma_resident.cu``, never
-    ``bilstm_bwd_lite.cu``); its gradients equal the CPU plain path's (1e-4
+    ``bilstm_bwd_lite.cu``; its forward in f32 ``bilstm_fwd_wide.cu``, in
+    bf16 the one-block ``bilstm_fwd_wide_mma_resident.cu``); its gradients
+    equal the CPU plain path's (1e-4
     x max(1, max|grad|) in f32, 2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
     wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd,
                 lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_bwd_lite_f32_resident,
                 lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32,
-                lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident)
+                lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma_resident)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        int(f32), int(not f32), 0, 0, int(f32), 0, int(f32), int(not f32), int(not f32)]
+        int(f32), int(not f32), 0, 0, int(f32), 0, int(f32), int(not f32), int(not f32),
+        int(f32), int(not f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -4043,7 +4201,10 @@ def test_sweep_mma_at_80_and_fwd_wide_mma_at_288_reject_bad_operands_on_card(cud
 # ------------------------------------------- the f32 tensor-core lite sweep
 @pytest.mark.parametrize("H,want", [(128, {16: 26624, 32: 49152}),
                                     (256, {16: 51200, 32: 94208}),
-                                    (288, {16: 58368, 32: 107520})])
+                                    (288, {16: 58368, 32: 107520}),
+                                    (160, {16: 33792, 32: 62464}),
+                                    (192, {16: 38912, 32: 71680}),
+                                    (224, {16: 46080, 32: 84992})])
 def test_lite_f32_smem_and_plan(H, want):
     """The f32 tensor-core lite sweep's shared memory by row tile, as its
     source lays it out (the op sweep's: the f32 h_prev tile and the block's
@@ -4059,7 +4220,7 @@ def test_lite_f32_smem_and_plan(H, want):
     assert want[R] == R * (H + 16) * 4 + R * (32 * -(-H // 64) + 16) * 4 + H * 40 * 4
     assert lstm_cuda.wide_plan("lite_f32", 400, 5, H, lambda R, b: 15) == (32, 15, want[32])
     assert lstm_cuda.wide_plan("lite_f32", 40, 5, H, lambda R, b: 15)[0] == 16
-    for bad, dtype in ((96, torch.float32), (224, torch.float32), (H, torch.bfloat16)):
+    for bad, dtype in ((96, torch.float32), (320, torch.float32), (H, torch.bfloat16)):
         with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
             lstm_cuda.lite_f32_check(bad, dtype)
     with pytest.raises(ValueError, match="no instance for a row tile of 24"):
@@ -4067,11 +4228,11 @@ def test_lite_f32_smem_and_plan(H, want):
 
 
 @pytest.mark.parametrize("ny", [0, 2])
-@pytest.mark.parametrize("H", [128, 288])
+@pytest.mark.parametrize("H", [128, 288, 160])
 def test_lite_f32_wrapper_takes_plain_version_on_cpu(H, ny):
     """The f32 tensor-core lite sweep takes the plain twin for CPU tensors,
-    counting no launch; ``bilstm_bwd_lite`` hands f32 at 128 / 256 / 288 to
-    it only on the card and reaches it and the CUDA-core sweep by name;
+    counting no launch; ``bilstm_bwd_lite`` hands f32 at 128-288 to it only
+    on the card and reaches it and the CUDA-core sweep by name;
     operands that require grad are refused. Its weight copy is the op
     sweep's layout of ``W_hh^T``: the fragment copy of ``w_hh`` transposed
     is that of the op's ``w``."""
@@ -4655,7 +4816,8 @@ def test_lite_mma_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
     and rows 8-15 short of T (a tile that stops early). The dispatch names
     it and its wrapper counts the launches; ``bilstm_bwd_lite.cu`` asked for
-    by name agrees too."""
+    by name is refused there (retired: the one-block sweep took bf16 at 96),
+    before any launch."""
     cd, H = torch.bfloat16, 96
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                                 seed=T + B + 97)
@@ -4671,9 +4833,10 @@ def test_lite_mma_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
     _close([lstm_cuda.bilstm_bwd_lite_mma_resident(*args)], [want], 3e-2)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 3e-2)
+    with pytest.raises(ValueError, match="and bf16 outside"):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda
@@ -4738,20 +4901,242 @@ def test_lite_mma_resident_edges_on_card(cuda_device):
 def test_two_layer_model_at_embedding_72_on_card(cuda_device):
     """The bf16 two-layer model at embedding 72: layer 0 (E = H = 72) on the
     tensor-core forward's and sweep's <72, 72> instances, the stacked layer
-    padded to 96 on the wide route with the one-block bf16 lite sweep; no
-    CUDA-core forward, sweep or lite sweep launches. Its gradients equal
-    the CPU plain path's within 2^-7 x max(1, max|grad|)."""
+    padded to 96 on the wide route with the one-block bf16 lite sweep and
+    wide forward; no CUDA-core forward, sweep, wide forward or lite sweep
+    launches. Its gradients equal the CPU plain path's within 2^-7 x max(1,
+    max|grad|)."""
     cd = torch.bfloat16
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_mma,
                 lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident, lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=72)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 0, 1, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=72)
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 2.0 ** -7 * max(
+            1.0, float(ref.abs().max())), name
+
+
+# ---- the f32 lite sweep at 160-224 and the one-block bf16 wide forward at 96
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B,ny,final", [(160, 1, 30, 1, True), (192, 1, 13, 0, False),
+                                            (224, 3, 27, 2, True), (160, 5, 60, 2, False),
+                                            (192, 2, 22, 1, True), (224, 4, 36, 0, True),
+                                            (160, 3, 27, 0, False)])
+def test_lite_f32_at_160_to_224_matches_plain_on_card(cuda_device, T, H, G, B, ny, final):
+    """The f32 tensor-core lite sweep at 160, 192 and 224 (its instances for
+    2 / 3, 3 and 3 / 4 unit groups a block) against its plain twin at 1e-4
+    x max(1, max|ref|): 0, 1 and 2 dy streams, with and without final-state
+    cotangents, groups of 30, 13, 9, 12, 11 and 9 rows (short tiles inside
+    each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
+    and rows 8-15 short of T (a tile that stops early), at the plan's row
+    tile. The dispatch names it and its wrapper counts the launches;
+    ``bilstm_bwd_lite.cu`` asked for by name agrees too (f32 keeps it there
+    by name)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                                seed=T + B + H)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep_lite(*args)
+    assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32"
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    before = [f.launches for f in wrappers]
+    _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
+    _close([lstm_cuda.bilstm_bwd_lite_f32(*args)], [want], 1e-4)
+    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("H", [160, 192, 224])
+def test_lite_f32_at_160_to_224_row_tiles_match_plain_on_card(cuda_device, monkeypatch, H,
+                                                              rows):
+    """The f32 lite sweep at 160-224 at each row tile (pinned with
+    monkeypatch on the plan's candidates): 400 rows in 5 groups, two dy
+    streams, T = 5, against the plain twin at 1e-4 x max(1, max|ref|)."""
+    monkeypatch.setattr(lstm_cuda, "LITE_F32_ROWS", (rows,))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, G = torch.float32, 5, 400, 5
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                                seed=H + rows)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
+    _close([lstm_cuda.bilstm_bwd_lite_f32(*args)], [bidir_layer_sweep_lite(*args)], 1e-4)
+
+
+@pytest.mark.cuda
+def test_lite_f32_at_160_at_the_main_path_shape_on_card(cuda_device):
+    """Layer 0 of the f32 two-layer model at embedding 160 (E = H = 160, 400
+    rows in 5 groups, two dy streams, T = 1500, the main path's lengths):
+    the same bits twice (the partial dh sums run in rank order), and the
+    plain twin at 1e-4 x max(1, max|ref|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, G, H = torch.float32, 1500, 400, 5, 160
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                                seed=16)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
+    del parts
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
+    got = lstm_cuda.bilstm_bwd_lite_f32(*args)
+    assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32(*args), got)
+    _close([got], [bidir_layer_sweep_lite(*args)], 1e-4)
+
+
+@pytest.mark.cuda
+def test_lite_f32_at_160_rejects_bad_operands_on_card(cuda_device):
+    """The f32 lite sweep refuses what its kernel does not take at 160,
+    before any launch: bf16 operands, a bf16 stream, a weight of the wrong
+    shape; ``bilstm_bwd_lite.cu`` by name still refuses f32 at 128 and bf16
+    at 96; nothing falls back."""
+    cd, H = torch.float32, 160
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [H], H, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    hs = torch.zeros(4, 10, H, device=cuda_device)
+    args = (xg, lengths, w_hh, hs, hs, hs, hs, dy[:1], dy[2:3], dhn, dcn, cd)
+    wrapper = lstm_cuda.bilstm_bwd_lite_f32
+    before = [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches]
+    with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
+        wrapper(*args[:-1], torch.bfloat16)
+    with pytest.raises(ValueError, match="hs_f must be a contiguous"):
+        wrapper(xg, lengths, w_hh, hs.to(torch.bfloat16), *args[4:])
+    with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+        wrapper(xg, lengths, w_hh[..., :128].contiguous(), *args[3:])
+    for dtype, width in ((torch.float32, 128), (torch.bfloat16, 96)):
+        case = layer_case(4, 10, [width], width, 1, dtype, cuda_device)
+        xw = input_gates(case[0], case[2], case[4], dtype)
+        hw = bidir_recurrence(xw, case[1], case[3], dtype, with_states=True)
+        with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256, and f32 outside"):
+            lstm_cuda.bilstm_bwd_lite(xw, case[1], case[3], hw[0], hw[1], hw[4], hw[5], (), (),
+                                      None, None, dtype, kernel="bilstm_bwd_lite")
+    torch.cuda.synchronize()
+    assert [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B", [(1, 30), (1, 13), (3, 27), (5, 60), (2, 22), (4, 36)])
+def test_fwd_wide_mma_resident_matches_plain_on_card(cuda_device, T, G, B):
+    """The one-block bf16 wide forward at H = 96 (W_hh as mma fragments in
+    registers) against its plain twin at 3e-2 x max(1, max|ref|), both
+    variants: groups of 30, 13, 9, 12, 11 and 9 rows (short tiles inside
+    each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
+    and rows 8-15 short of T (a tile that stops at its longest row). The
+    dispatch names it and its wrappers count the launches; both variants
+    give the same hs bits; ``bilstm_fwd_wide.cu`` asked for by name agrees
+    too."""
+    cd, H = torch.bfloat16, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=T + B + 96)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma_resident"
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    _close(lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd), want, 3e-2)
+    _close(lstm_cuda.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd), want[:4], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 0]
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
+           want, 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 1]
+
+
+@pytest.mark.cuda
+def test_fwd_wide_mma_resident_at_the_main_path_shape_on_card(cuda_device):
+    """The stacked layer of the bf16 models at embedding 80 and 72 at its
+    run shape: H = 96, input parts 80 + 80 (the gates from the tensor-core
+    gates kernel), 400 rows in one group, T = 1500, ragged lengths: both
+    variants against the plain twin at 3e-2 x max(1, max|ref|), the same
+    bits twice, and the same hs bits in both variants."""
+    cd, T, B, H = torch.bfloat16, 1500, 400, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [80, 80], H, 1, cd, cuda_device,
+                                                           seed=15)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    del parts
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    got = lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd)
+    again = lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    ev = lstm_cuda.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+
+
+@pytest.mark.cuda
+def test_fwd_wide_mma_resident_edges_on_card(cuda_device):
+    """An empty batch launches nothing and T = 0 gives empty streams with a
+    zero final state; f32 operands, H = 128 and a ``w_hh`` that is not
+    contiguous raise in the one-block wrappers (nothing falls back)."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [96], 96, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident)
+    before = [f.launches for f in wrappers]
+    for fwd in wrappers:
+        out = fwd(xg[:, :, :0].contiguous(), lengths[:0], w_hh[:, :1].contiguous(), cd)
+        assert out[0].shape == (4, 0, 96) and out[2].shape == (2, 0, 96)
+    assert [f.launches for f in wrappers] == before
+    for fwd in wrappers:
+        out = fwd(xg[:, :0].contiguous(), lengths, w_hh, cd)
+        assert out[0].shape == (0, 10, 96) and not out[2].any() and not out[3].any()
+        f32 = torch.float32
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma_resident kernel takes bfloat16"):
+            fwd(xg, lengths, w_hh.to(f32), f32)
+        wide = layer_case(4, 10, [128], 128, 2, cd, cuda_device)
+        xw = input_gates(*wide[:1], wide[2], wide[4], cd)
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma_resident kernel takes bfloat16"):
+            fwd(xw, wide[1], wide[3], cd)
+        with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+            fwd(xg, lengths, w_hh.transpose(-1, -2).contiguous().transpose(-1, -2), cd)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_two_layer_model_at_embedding_160_on_card(cuda_device):
+    """The f32 two-layer model at embedding 160: both layers on the wide
+    route at H = 160, their lite sweeps on ``bilstm_bwd_lite_f32.cu`` (never
+    ``bilstm_bwd_lite.cu``), their forwards on ``bilstm_fwd_wide.cu``; its
+    gradients equal the CPU plain path's within 1e-4 x max(1, max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=160)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=160)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
             1.0, float(ref.abs().max())), name

@@ -56,10 +56,10 @@ def port_layers(layers):
     ]
 
 
-def run_both(monkeypatch, route, dtype, G, seed):
+def run_both(monkeypatch, route, dtype, G, seed, H=8):
     pin(monkeypatch, route)
     jdt, tdt = DTYPES[dtype]
-    B, T, H = 8, 12, 8
+    B, T = 8, 12
     rng = np.random.default_rng(seed)
     layers = jax.tree_util.tree_map(np.asarray, init_lstm_params(jax.random.PRNGKey(seed), H, H, 2))
     if G > 1:  # per-call recurrent weights on layer 0, both directions
@@ -91,12 +91,16 @@ def run_both(monkeypatch, route, dtype, G, seed):
     return float(loss.detach()), float(jl), [g.numpy() for g in grads], want
 
 
-@pytest.mark.parametrize("route,G", [("wide", 1), ("wide", 2), ("resident", 2)])
-def test_stack_matches_pallas_plan_f32(monkeypatch, route, G):
+@pytest.mark.parametrize("route,G,H", [
+    pytest.param("wide", 1, 8, id="wide-1"), pytest.param("wide", 2, 8, id="wide-2"),
+    pytest.param("resident", 2, 8, id="resident-2"),
+    # the wide route at H = 160, where the f32 lite sweep is bilstm_bwd_lite_f32.cu
+    pytest.param("wide", 1, 160, id="wide-1-H160")])
+def test_stack_matches_pallas_plan_f32(monkeypatch, route, G, H):
     """f32: the gradients to 2e-5; the loss, a sum of ~2,300 products of
-    unit size that partly cancel, to 1e-5 absolute (f32 sums in another
-    order)."""
-    got_l, want_l, got, want = run_both(monkeypatch, route, "float32", G, seed=5 + G)
+    unit size that partly cancel (at H = 8), to 1e-5 absolute (f32 sums in
+    another order)."""
+    got_l, want_l, got, want = run_both(monkeypatch, route, "float32", G, seed=5 + G, H=H)
     np.testing.assert_allclose(got_l, want_l, rtol=1e-6, atol=1e-5)
     for g, w in zip(got, want):
         assert g.shape == w.shape

@@ -106,11 +106,11 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
     named before the tensor-core instance at 288: the tensor-core sweep in
     bf16 at H = 128 and 256, the CUDA-core one at the other bf16 widths;
     except bf16 at H = 288, which the tensor-core sweep now takes (the
-    layers of 257-288 units, embedding 272 among them), f32 at 128, 256
-    and 288, which the f32 tensor-core sweep (three tf32 passes) takes, and
-    96 in either dtype, which the one-block sweeps with W_hh resident take
-    (three tf32 passes in f32, one bf16 pass in bf16); 160, 192 and 224
-    keep the CUDA-core one."""
+    layers of 257-288 units, embedding 272 among them), f32 at 128 to 288,
+    which the f32 tensor-core sweep (three tf32 passes) takes, and 96 in
+    either dtype, which the one-block sweeps with W_hh resident take (three
+    tf32 passes in f32, one bf16 pass in bf16); bf16 at 160, 192 and 224
+    keeps the CUDA-core one."""
     wide = set()
     for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
@@ -126,7 +126,7 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             bf16 = dtype == torch.bfloat16
             parent = "bilstm_bwd_lite_mma" if bf16 and Hp in (128, 256) else "bilstm_bwd_lite"
             want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
-            if not bf16 and Hp in (128, 256, 288):
+            if not bf16 and Hp in (128, 160, 192, 224, 256, 288):
                 want = "bilstm_bwd_lite_f32"
             if Hp == 96:
                 want = "bilstm_bwd_lite_mma_resident" if bf16 else "bilstm_bwd_lite_f32_resident"
@@ -200,10 +200,10 @@ def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
     """Over the grid above, every layer keeps the route and padded shape it
     had before the f32 tensor-core lite sweep (the plans with its widths
     emptied: ``LITE_F32_WIDTHS`` = ()), and the same kernel at every step,
-    except one: in f32 the lite sweep at Hp = 128, 256 and 288 is
+    except one: in f32 the lite sweep at Hp = 128 to 288 is
     ``bilstm_bwd_lite_f32`` where it was ``bilstm_bwd_lite``. bf16 changes
-    nothing; f32 at Hp = 160, 192 and 224 keeps the CUDA-core sweep (and 96
-    its one-block sweep, which has no cap here)."""
+    nothing; no f32 wide layer keeps the CUDA-core sweep (96 keeps its
+    one-block sweep, which has no cap here)."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "LITE_F32_WIDTHS", ())
@@ -226,7 +226,7 @@ def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
     if dtype == torch.bfloat16:
         assert changed == set()
     else:
-        assert changed == {128, 256} and kept == {160, 192, 224}
+        assert changed == {128, 160, 192, 224, 256} and kept == set()
         assert lstm_cuda.lite_kernel(96, dtype) == "bilstm_bwd_lite_f32_resident"
         # 288 lies past JAX's f32 plans (242): the grid's widest f32 layer
         assert lstm_cuda.lite_kernel(288, dtype) == "bilstm_bwd_lite_f32"
@@ -376,6 +376,56 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
         (40, (40, 40)), (48, (40, 40)), (48, (56, 56)), (56, (56,)), (56, (56, 56))}
     assert not any(p[3][2] == "bilstm_bwd_lite" and p[1] == 96 for p in after.values()
                    if p[0] == "wide")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_f32_lite_sweep_at_160_to_224_and_bf16_wide_forward_at_96_change_no_other_plan(
+        dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the f32 tensor-core lite sweep took Hp = 160, 192 and 224 and
+    the one-block bf16 wide forward took Hp = 96 (the plans with those two
+    set back: ``LITE_F32_WIDTHS`` = (128, 256, 288),
+    ``FWD_WIDE_MMA_RESIDENT_WIDTHS`` = ()), and the same kernel at every
+    step, except two: in f32 the lite sweep at Hp = 160, 192 and 224 (layer
+    0 of 145-224 units and the stacked layers run there) is
+    ``bilstm_bwd_lite_f32`` where it was ``bilstm_bwd_lite``, and in bf16
+    the wide forward at Hp = 96 (the stacked layers of 65-96 units and layer
+    0 of 81-96) ``bilstm_fwd_wide_mma_resident`` where it was
+    ``bilstm_fwd_wide``. bf16 keeps ``bilstm_bwd_lite.cu`` at 160-224 and
+    f32 ``bilstm_fwd_wide.cu`` at 96-224."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "LITE_F32_WIDTHS", (128, 256, 288))
+            m.setattr(lstm_cuda, "FWD_WIDE_MMA_RESIDENT_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp))
+            assert not diff, key
+    wide = {Hp for route, Hp, _, _ in after.values() if route == "wide"}
+    if dtype == torch.float32:
+        assert changed == {("bilstm_bwd_lite", "bilstm_bwd_lite_f32"): {
+            ("wide", 160), ("wide", 192), ("wide", 224)}}
+        assert {p[3][1] for p in after.values() if p[0] == "wide"} == {
+            "bilstm_fwd_wide", "bilstm_fwd_wide_f32"}
+        assert after["train layer 0", 160][3][2] == "bilstm_bwd_lite_f32"
+    else:
+        assert changed == {("bilstm_fwd_wide", "bilstm_fwd_wide_mma_resident"): {("wide", 96)}}
+        assert {p[1] for p in after.values()
+                if p[0] == "wide" and p[3][2] == "bilstm_bwd_lite"} == {160, 192, 224}
+        for width in (80, 72):
+            assert after["train stacked", width][3][1] == "bilstm_fwd_wide_mma_resident"
+    assert {96, 160, 192, 224} <= wide
 
 
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
