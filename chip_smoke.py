@@ -115,23 +115,33 @@ exits non-zero with no result):
    eval step, timed: layer 0 on ``bilstm_fwd_mma`` and ``bilstm_bwd_mma``,
    the stacked layer on ``bilstm_bwd_lite_mma_resident``, never
    ``bilstm_fwd.cu``, ``bilstm_bwd.cu`` or ``bilstm_bwd_lite.cu``); the
-   wide forward (both variants, the CUDA-core ``bilstm_fwd_wide.cu``) and
-   lite sweep (the one-block ones; in bf16 in turns with
-   ``bilstm_bwd_lite.cu`` by name) at the stacked layer at embedding 80
+   wide forward (both variants: in bf16 the one-block
+   ``bilstm_fwd_wide_mma_resident``, in f32 the CUDA-core
+   ``bilstm_fwd_wide.cu``) and lite sweep (the one-block ones) at the
+   stacked layer at embedding 80
    (run at H = 96) in bf16 and in f32, against their twins, timed beside
    their bounds and cuDNN; at 288 the
    tensor-core forward (both variants) ``bilstm_fwd_wide(_train)_mma``
    and lite sweep ``bilstm_bwd_lite_mma`` (their instances for uneven
    unit groups), which the dispatch names there, against their twins and
-   timed, the forward also at each of its row tiles; then a
+   timed, the forward also at each of its row tiles; the two-layer
+   models at embedding 160 at the train shape in f32 and bf16 (2 steps and
+   an eval step each, timed) and layer 0 at E = H = 160, 192, 224: in f32
+   ``bilstm_fwd_wide_f32`` (both variants, in turns with
+   ``bilstm_fwd_wide.cu`` by name, each row tile in turns with the
+   dispatch) and ``bilstm_bwd_lite_f32``, in bf16 ``bilstm_fwd_wide.cu``
+   and ``bilstm_bwd_lite_mma`` (in turns with ``bilstm_bwd_lite.cu`` by
+   name), beside their bounds and cuDNN; then a
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
    112, (bf16) 272, (bf16) 72, whose layer 0 is the main path of the
    tensor-core forward's and sweep's <72, 72> instances, (bf16) 16, whose
    stacked layer is ``bilstm_bwd.cu``'s, (bf16) 56, whose layers are
-   ``bilstm_fwd.cu``'s, and (f32) 160, whose layers are
-   ``bilstm_bwd_lite.cu``'s, and of the recurrence backend at embedding 80
+   ``bilstm_fwd.cu``'s, and 160, whose layers run the f32 tensor-core
+   forward and lite sweep in f32, ``bilstm_fwd_wide.cu`` and the bf16
+   tensor-core lite sweep in bf16 (never ``bilstm_bwd_lite.cu``), and of
+   the recurrence backend at embedding 80
    (run at 96), each with the kernels it must launch (and, where given,
    must not);
 6. wide_kernel — the wide route's kernels (input gates, the cluster
@@ -223,7 +233,7 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
+11. the ``kernels`` line (thirty-eight kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
@@ -232,8 +242,9 @@ exits non-zero with no result):
     ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
     ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
     72 beside it); the CUDA-core wide forward's main path f32 at 96 (bf16
-    beside it) and the CUDA-core lite sweep's f32 at 160 (layer 0 at
-    embedding 160; 192, 224 and bf16 at 96 by name beside it); the bf16 op
+    at 160-224 and f32 there by name beside it); the CUDA-core lite sweep
+    runs on no path, its times by name at 160-224 stand in the bf16
+    tensor-core lite sweep's entry (``hN_cuda_core_ms``); the bf16 op
     past 288, the f32 forward and sweep past 288, the f32 tensor-core lite
     sweep, the one-block lite sweeps at 96 and the f32 tensor-core gates
     and wide forward as entries of their own, the last with ``hN_*`` fields
@@ -289,8 +300,6 @@ def phase_build() -> dict:
     from intrepppid_tpu_torch.native import load_spm_library
     from intrepppid_tpu_torch.ops import _build
     from intrepppid_tpu_torch.ops.lstm_cuda import (
-        FWD_WIDE_F32_ROWS,
-        FWD_WIDE_F32_UNEVEN_ROWS,
         FWD_WIDE_F32_WIDTHS,
         FWD_WIDE_MMA_ROWS,
         FWD_WIDE_MMA_WIDTHS,
@@ -300,6 +309,7 @@ def phase_build() -> dict:
         LITE_F32_WIDTHS,
         LITE_MMA_ROWS,
         LITE_MMA_UNEVEN_ROWS,
+        LITE_MMA_WIDTHS,
         REC_WGRAD_MMA_SMEM,
         REC_WIDE_F32_FWD_ROWS,
         REC_WIDE_F32_ROWS,
@@ -313,6 +323,7 @@ def phase_build() -> dict:
         bwd_mma_plan,
         fwd_f32_plan,
         fwd_mma_plan,
+        fwd_wide_f32_rows,
         WIDE_ROWS,
         launch_plan,
         lite_f32_resident_plan,
@@ -363,7 +374,7 @@ def phase_build() -> dict:
     smem["wgrad_f32"] = WGRAD_F32_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     smem["gates_mma"] = GATES_MMA_SMEM
-    for H in (128, E_SCALED, 288):
+    for H in LITE_MMA_WIDTHS:
         for rows in LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS:
             if wide_smem("lite_mma", H, rows) <= SMEM_LIMIT:
                 smem[f"bwd_lite_mma H={H} rows={rows}"] = wide_smem("lite_mma", H, rows)
@@ -391,7 +402,7 @@ def phase_build() -> dict:
             smem[f"bwd_lite_f32 H={H} rows={rows}"] = wide_smem("lite_f32", H, rows)
     smem["gates_f32"] = GATES_F32_SMEM
     for H in FWD_WIDE_F32_WIDTHS:
-        for R in FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS:
+        for R in fwd_wide_f32_rows(H):
             smem[f"fwd_wide_f32 H={H} rows={R}"] = wide_smem("fwd_f32", H, R)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
@@ -1002,9 +1013,11 @@ def ragged_80_96_check(dev) -> list:
     bf16 also its <72, 72> one), the one-block lite sweep at H = 96 (in
     f32 ``bilstm_bwd_lite_f32_resident``, in bf16
     ``bilstm_bwd_lite_mma_resident``), the one-block bf16 wide forward at
-    96 (both variants, ``bilstm_fwd_wide_mma_resident``) and the f32
-    tensor-core lite sweep at 160, 192 and 224 (``bilstm_bwd_lite_f32``)
-    against their twins where no size is round: 27 rows in 3 weight groups
+    96 (both variants, ``bilstm_fwd_wide_mma_resident``), the f32
+    tensor-core lite sweep and wide forward (both variants) and the bf16
+    tensor-core lite sweep at 160, 192 and 224 (``bilstm_bwd_lite_f32``,
+    ``bilstm_fwd_wide_f32``, ``bilstm_bwd_lite_mma``) against their twins
+    where no size is round: 27 rows in 3 weight groups
     of 9 (a short tile in each group), T = 1 and 5, rows of length 0, 1 and
     T, the 9 rows of the second group (a whole row tile) ending at T // 3 at
     most, the sweeps with two dy streams and with none; 1e-4 x max(1,
@@ -1037,16 +1050,22 @@ def ragged_80_96_check(dev) -> list:
                 ("bilstm_fwd_wide_mma_resident", 96, [48, 48], torch.bfloat16),
                 ("bilstm_bwd_lite_f32", 160, [160], torch.float32),
                 ("bilstm_bwd_lite_f32", 192, [96, 96], torch.float32),
-                ("bilstm_bwd_lite_f32", 224, [224], torch.float32)):
+                ("bilstm_bwd_lite_f32", 224, [224], torch.float32),
+                ("bilstm_fwd_wide_f32", 160, [160], torch.float32),
+                ("bilstm_fwd_wide_f32", 192, [96, 96], torch.float32),
+                ("bilstm_fwd_wide_f32", 224, [224], torch.float32),
+                ("bilstm_bwd_lite_mma", 160, [160], torch.bfloat16),
+                ("bilstm_bwd_lite_mma", 192, [96, 96], torch.bfloat16),
+                ("bilstm_bwd_lite_mma", 224, [224], torch.bfloat16)):
             parts = tuple(u(T, B, e).to(cd) for e in E_parts)
             w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(cd)
             w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
             bias = u(2, 4 * H)
-            if kernel == "bilstm_fwd_wide_mma_resident":
+            if kernel.startswith("bilstm_fwd_wide"):
                 xg = input_gates(parts, w_ih, bias, cd)
                 want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-                got = L.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd)
-                ev = L.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd)
+                got = getattr(L, kernel.replace("_wide", "_wide_train"))(xg, lengths, w_hh, cd)
+                ev = getattr(L, kernel)(xg, lengths, w_hh, cd)
                 res = {f"fwd_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(names, got, want)}
                 res.update({f"fwd_eval_{n}": rel_err(a, b, TOL[cd])
                             for n, a, b in zip(names, ev, want)})
@@ -1081,7 +1100,7 @@ def ragged_80_96_check(dev) -> list:
             out.append(check)
             if not all(ok for _, ok in res.values()):
                 emit({"phase": "train_kernel", "failed": check})
-                raise AssertionError(f"a ragged kernel at 72 / 80 / 96 disagrees: {check}")
+                raise AssertionError(f"a ragged kernel at 72-224 disagrees: {check}")
     return out
 
 
@@ -1710,6 +1729,9 @@ WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f3
 WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite", "bilstm_wgrad")
 WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
                  "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
+# bf16 at 160-224: the CUDA-core forward, the tensor-core lite sweep
+WIDE_160_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
+                 "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch (at 72 in
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
@@ -1720,9 +1742,10 @@ WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wi
 # K = 48, which the tensor-core sweep does not take; at 56 in bf16 both
 # layers, E = 56 and 56 + 56, are bilstm_fwd.cu's, which the tensor-core
 # forward has no instance for; at 160 both layers run on the wide route at
-# 160: in f32 the f32 tensor-core lite sweep's (bilstm_bwd_lite.cu must not
-# launch), in bf16 bilstm_fwd_wide.cu's and bilstm_bwd_lite.cu's) and,
-# where given, must not
+# 160: in f32 the f32 tensor-core forward's and lite sweep's
+# (bilstm_fwd_wide.cu and bilstm_bwd_lite.cu must not launch), in bf16
+# bilstm_fwd_wide.cu's and the bf16 tensor-core lite sweep's
+# (bilstm_bwd_lite.cu must not launch)) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1747,12 +1770,10 @@ WIDTH_STEPS = (
     ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
                                    "bilstm_wgrad_mma"),
      ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd")),
-    ("layer", 160, torch.float32, ("bilstm_gates_f32", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                                   "bilstm_bwd_lite_f32", "bilstm_wgrad_f32"),
-     ("bilstm_bwd_lite", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32")),
-    ("layer", 160, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                                    "bilstm_bwd_lite", "bilstm_wgrad_mma"),
-     ("bilstm_bwd_lite_f32", "bilstm_bwd_lite_mma", "bilstm_fwd_wide_mma",
+    ("layer", 160, torch.float32, WIDE_F32,
+     ("bilstm_bwd_lite", "bilstm_fwd_wide", "bilstm_fwd_wide_train")),
+    ("layer", 160, torch.bfloat16, WIDE_160_BF16,
+     ("bilstm_bwd_lite", "bilstm_bwd_lite_f32", "bilstm_fwd_wide_mma",
       "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
@@ -1859,8 +1880,9 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     ``bilstm_fwd_wide_mma_resident.cu`` and ``bilstm_bwd_lite_mma_resident.cu``,
     in f32 ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_f32_resident.cu``);
     with E = H = 160-224 layer 0 at those embeddings (in f32
-    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_f32.cu``, in bf16
-    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``); 400 rows, T = 1500,
+    ``bilstm_fwd_wide_f32.cu``, also at each of its row tiles in turns with
+    the dispatch, and ``bilstm_bwd_lite_f32.cu``, in bf16
+    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_mma.cu``); 400 rows, T = 1500,
     the input gates from the tensor-core gates kernel. The forward and the
     sweep the dispatch names must be ``fwd_want`` and ``lite_want``. Each
     held against its plain twin with the main path's lengths (the tolerance
@@ -1889,6 +1911,7 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     if picked != (Hp_want, fwd_want, lite_want):
         raise AssertionError(f"the layer at E={E_parts}, H={H} in {cd} runs {picked}")
     mma = fwd_want == "bilstm_fwd_wide_mma"
+    fwd_f32 = fwd_want == "bilstm_fwd_wide_f32"
     sfx = "_mma" if mma else ""
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
@@ -1936,6 +1959,21 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                         out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd"], 3)
                 finally:
                     L.FWD_WIDE_MMA_UNEVEN_ROWS = keep
+            if fwd_f32:
+                # the train variant at each row tile, in turns with the dispatch
+                for R in L.fwd_wide_f32_rows(Hp):
+                    a, b, c = in_turns(lambda: at_f32_rows(
+                        L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh, cd), calls["fwd"], 2)
+                    out["fwd"][f"rows_{R}_ms"] = 0.5 * (a + b)
+                    out["fwd"][f"rows_{R}_dispatch_ms"] = c
+            if not mma and lite_want == "bilstm_bwd_lite_mma" or fwd_f32:
+                kind, lib, k = (("fwd_f32", fwd_want, "fwd") if fwd_f32 else
+                                ("lite_mma", lite_want, "lite"))
+                out[k]["rows"], out[k]["tiles"], _ = L.wide_plan(
+                    kind, B_TRAIN, G, Hp, L._max_clusters(lib, cd, Hp, dev))
+                out[k]["max_active_clusters"] = {
+                    f"rows={c[3]}": v for c, v in L._cluster_counts.items()
+                    if c[0] == lib and c[2] == Hp}
         else:
             want, out["fwd" + sfx]["plain_ms"] = timed_once(
                 lambda: bidir_recurrence(xg, lengths, w_hh, cd, with_states=True))
@@ -1964,6 +2002,11 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                 for k in ("fwd", "fwd_eval"):
                     res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
                                    for n, a, b in zip(names, old[k](), want)})
+            if fwd_f32:
+                for R in L.fwd_wide_f32_rows(Hp):
+                    res["fwd"].update({f"rows{R}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                        names, at_f32_rows(L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh,
+                                           cd), want)})
             del train, ev
             torch.cuda.synchronize()
             for k, r in res.items():
@@ -2084,12 +2127,12 @@ WIDE_F32_LAYERS = ((288, [272], 272, G_TRAIN, "layer 0 at embedding 272"),
 def at_f32_rows(L, R, fn, *args):
     """``fn(*args)`` with the f32 tensor-core forward's plan held to row
     tiles of ``R``."""
-    keep = L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_UNEVEN_ROWS
-    L.FWD_WIDE_F32_ROWS = L.FWD_WIDE_F32_UNEVEN_ROWS = (R,)
+    keep = L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_ROWS_288
+    L.FWD_WIDE_F32_ROWS = L.FWD_WIDE_F32_ROWS_288 = (R,)
     try:
         return fn(*args)
     finally:
-        L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_UNEVEN_ROWS = keep
+        L.FWD_WIDE_F32_ROWS, L.FWD_WIDE_F32_ROWS_288 = keep
 
 
 def wide_f32_kernels(dev, ny=2) -> dict:
@@ -2120,7 +2163,7 @@ def wide_f32_kernels(dev, ny=2) -> dict:
         row = {"layer": what, "B": B_TRAIN, "T": T_TRAIN, "check_T": 300, "E_parts": E_parts,
                "H": H, "padded_H": Hp, "padded_parts": Ep, "G": G,
                "tol": f"{TOL[cd]} x max(1, max|ref|)"}
-        row_tiles = L.FWD_WIDE_F32_ROWS if Hp % 64 == 0 else L.FWD_WIDE_F32_UNEVEN_ROWS
+        row_tiles = L.fwd_wide_f32_rows(Hp)
 
         for full in (False, True):
             parts, lengths, w_ih, w_hh, bias, _, _, _, _ = train_layer_inputs(
@@ -2352,17 +2395,19 @@ def phase_widths(dev) -> dict:
     ``bilstm_bwd.cu`` by name, and ``bilstm_fwd.cu``, its forward there)
     and on the stacked layer of the bf16 model at embedding 16
     (``bilstm_bwd.cu``'s main path); the bf16 two-layer model at embedding
-    72 at the train shape (2 steps and an eval step, timed); the f32
-    two-layer model at embedding 160 at the train shape (2 steps and an eval
-    step, timed: the f32 tensor-core lite sweep at 160 in both layers);
+    72 at the train shape (2 steps and an eval step, timed); the two-layer
+    models at embedding 160 at the train shape (2 steps and an eval step
+    each, timed: in f32 the f32 tensor-core forward and lite sweep at 160
+    in both layers, in bf16 ``bilstm_fwd_wide.cu`` and the bf16 tensor-core
+    lite sweep);
     ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, the bf16
     tensor-core forward and lite sweep), at embedding 80's stacked layer
-    (H = 96: in bf16 the one-block forward, in turns with
-    ``bilstm_fwd_wide.cu`` by name, and lite sweep; in f32 the CUDA-core
+    (H = 96: in bf16 the one-block forward and lite sweep; in f32 the CUDA-core
     forward and the one-block lite sweep) and at layer 0 at E = H = 160,
-    192, 224 (in f32 ``bilstm_fwd_wide.cu`` and the f32 tensor-core lite
-    sweep, in turns with ``bilstm_bwd_lite.cu`` by name; in bf16
-    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite.cu``, their main path);
+    192, 224 (in f32 the f32 tensor-core forward, in turns with
+    ``bilstm_fwd_wide.cu`` by name, and lite sweep; in bf16
+    ``bilstm_fwd_wide.cu``, its main path, and the bf16 tensor-core lite
+    sweep, in turns with ``bilstm_bwd_lite.cu`` by name);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -2381,10 +2426,9 @@ def phase_widths(dev) -> dict:
                                       ("embedding_272_bfloat16", torch.bfloat16, 272,
                                        WIDE_288_BF16),
                                       ("embedding_272_float32", torch.float32, 272, WIDE_F32),
-                                      ("embedding_160_float32", torch.float32, 160,
-                                       ("bilstm_gates_f32", "bilstm_fwd_wide_train",
-                                        "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
-                                        "bilstm_wgrad_f32"))):
+                                      ("embedding_160_float32", torch.float32, 160, WIDE_F32),
+                                      ("embedding_160_bfloat16", torch.bfloat16, 160,
+                                       WIDE_160_BF16)):
         others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + WIDE_CUDA_CORE) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
@@ -2413,21 +2457,21 @@ def phase_widths(dev) -> dict:
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
                                         "bilstm_fwd_wide_mma_resident",
-                                        "bilstm_bwd_lite_mma_resident", fwd_by_name=True)
+                                        "bilstm_bwd_lite_mma_resident")
     kernels_96_f32 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 52,
                                             "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
                                             torch.float32)
-    # layer 0 at E = H = 160, 192, 224, 5 groups: in f32 the CUDA-core wide
-    # forward and the f32 tensor-core lite sweep, in turns with the
-    # CUDA-core one by name; in bf16 both CUDA-core kernels (their main path
-    # since the f32 lite sweep and the one-block bf16 forward took the
-    # others): timed beside their bounds and cuDNN
+    # layer 0 at E = H = 160, 192, 224, 5 groups: in f32 the f32 tensor-core
+    # wide forward, in turns with the CUDA-core one by name, and lite sweep;
+    # in bf16 the CUDA-core forward (its main path) and the bf16
+    # tensor-core lite sweep, in turns with the CUDA-core one by name: timed
+    # beside their bounds and cuDNN
     kernels_f32_wide = {f"h{H}": wide_cuda_core_kernels(
-        dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide", "bilstm_bwd_lite_f32",
-        torch.float32, lite_by_name=True) for H in (160, 192, 224)}
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32",
+        torch.float32, fwd_by_name=True) for H in (160, 192, 224)}
     kernels_bf16_wide = {f"h{H}": wide_cuda_core_kernels(
-        dev, (H,), H, G_TRAIN, 2, H, SEED + 54 + H, "bilstm_fwd_wide", "bilstm_bwd_lite",
-        torch.bfloat16) for H in (160, 192, 224)}
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 54 + H, "bilstm_fwd_wide", "bilstm_bwd_lite_mma",
+        torch.bfloat16, lite_by_name=True) for H in (160, 192, 224)}
     steps = []
     for backend, width, dtype, expect, *never in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -2789,7 +2833,7 @@ def ragged_wide_f32_check(dev) -> list:
                    "xg_twice": (0.0, bool(torch.equal(xg, L.bilstm_gates_f32(parts, w_ih, bias,
                                                                              cd))))}
             want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-            for R in L.FWD_WIDE_F32_ROWS if H % 64 == 0 else L.FWD_WIDE_F32_UNEVEN_ROWS:
+            for R in L.fwd_wide_f32_rows(H):
                 got = at_f32_rows(L, R, L.bilstm_fwd_wide_train_f32, xg, lengths, w_hh, cd)
                 ev = at_f32_rows(L, R, L.bilstm_fwd_wide_f32, xg, lengths, w_hh, cd)
                 res.update({f"fwd_rows{R}_{n}": rel_err(a, b, TOL[cd])
@@ -4202,36 +4246,30 @@ def main() -> int:
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    # the CUDA-core wide forward and lite sweep: the forward's main path is
-    # the stacked layer of the f32 two-layer model at embedding 80 (run at H
-    # = 96), the lite sweep's since the f32 tensor-core sweep took f32 at
-    # 160-224 layer 0 of the bf16 model at embedding 160 (E = H = 160), its
-    # gradient and eval step; both timed in bf16 at 160 / 192 / 224 (their
-    # main path, bfloat16_hN_*: the forward's bf16 launches there too); each
+    # the CUDA-core wide forward: its main path is the stacked layer of the
+    # f32 two-layer model at embedding 80 (run at H = 96), and layer 0 of the
+    # bf16 model at embedding 160 (E = H = 160), whose steps run it too;
+    # timed in bf16 at 160 / 192 / 224 (bfloat16_hN_*: its main path there),
     # by name in bf16 at the scaled widths in turns with the tensor-core
-    # kernel (bf16_h256_ms), the forward in f32 at 160 / 192 / 224
-    # (float32_hN_*) and the lite sweep by name there in turns with the f32
-    # tensor-core one (float32_hN_*)
+    # kernel (bf16_h256_ms) and in f32 at 160 / 192 / 224 in turns with the
+    # f32 tensor-core one (float32_hN_*). The CUDA-core lite sweep
+    # (bilstm_bwd_lite.cu) runs on no path since the bf16 tensor-core sweep
+    # took 160-224: its times by name stand in bilstm_bwd_lite_mma's entry
     f32_scaled = scaled["grad_check"]["launches"]
     lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
     k96, k96_f32 = widths["kernels_96"], widths["kernels_96_float32"]
     kf32, kbf16 = widths["kernels_float32_wide"], widths["kernels_bfloat16_wide"]
     g160 = {c["dtype"]: c for c in widths["grad_checks"]
             if c["backend"] == "layer" and c.get("embedding_size") == 160}
-    for key, name, source, replaces in (
-        ("fwd", "bilstm_fwd_wide_train", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
-        ("fwd_eval", "bilstm_fwd_wide", "bilstm_fwd_wide.cu", "lstm_pallas_layer.py:285"),
-        ("lite", "bilstm_bwd_lite", "bilstm_bwd_lite.cu", "lstm_pallas_layer.py:436"),
-    ):
-        main = (kbf16["h160"] if key == "lite" else k96_f32)[key]
+    for key, name in (("fwd", "bilstm_fwd_wide_train"), ("fwd_eval", "bilstm_fwd_wide")):
+        main = k96_f32[key]
         cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
-            "source": f"intrepppid_tpu_torch/csrc/{source}",
-            "replaces": f"intrepppid_tpu/ops/{replaces}",
-            "launches": g160["bfloat16"]["launches"].get(name, 0) if key == "lite"
-            else e80_launches["float32"][name],
+            "source": "intrepppid_tpu_torch/csrc/bilstm_fwd_wide.cu",
+            "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:285",
+            "launches": e80_launches["float32"][name],
             "max_abs_err": max(main["max_abs_err"].values()),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
                                     "library_ms")},
@@ -4239,50 +4277,40 @@ def main() -> int:
             "bf16_h256_max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
                                          for n, v in c["max_abs_err"].items()
                                          if n in cuda_core_errs),
-            "work": ("layer 0 of the bf16 two-layer model at embedding 160 (E=H=160, 5 groups, "
-                     "two dy streams), 400 rows, T=1500; launches: that model's gradient and "
-                     "eval step (both layers, run at 160); bound at the bf16 rate; library: "
-                     "cuDNN one-layer bf16 backward (input) at E=H=160" if key == "lite" else
-                     "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run "
-                     "at H=96, one weight group, one dy stream), 400 rows, T=1500, its main path: "
-                     "launches in that model's f32 steps; bound at the f32 rate at H=96 "
-                     "(true_bound_ms at 80); library: cuDNN one-layer f32 forward at E=160, "
-                     "H=80")
-                    + ", TF32 off; bf16_h256_ms: by name on the bf16 scaled step's operands "
-                      "(layer 0 + one E=2x256 layer), in turns with the tensor-core kernel",
+            "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run "
+                    "at H=96, one weight group, one dy stream), 400 rows, T=1500, its main path: "
+                    "launches in that model's f32 steps; bound at the f32 rate at H=96 "
+                    "(true_bound_ms at 80); library: cuDNN one-layer f32 forward at E=160, "
+                    "H=80, TF32 off; bf16_h256_ms: by name on the bf16 scaled step's operands "
+                    "(layer 0 + one E=2x256 layer), in turns with the tensor-core kernel",
         }
         # bf16 and f32 at 160, 192 and 224 (layer 0 at E = H, 5 groups, two
-        # dy streams); in f32 the lite sweep by name, in turns with the f32
-        # tensor-core one
+        # dy streams); in f32 by name, in turns with the f32 tensor-core one
         for h, r in kbf16.items():
             entry.update({f"bfloat16_{h}_{k}": r[key][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
             entry[f"bfloat16_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
         for h, r in kf32.items():
-            if key == "lite":
-                o = r["lite"]
-                entry.update({f"float32_{h}_ms": o["cuda_core_ms"],
-                              f"float32_{h}_bound_ms": o["cuda_core_bound_ms"],
-                              f"float32_{h}_library_ms": o["library_ms"],
-                              f"float32_{h}_max_abs_err": o["max_abs_err"]["cuda_core_dgates"]})
-            else:
-                entry.update({f"float32_{h}_{k}": r[key][k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_fwd_again_ms")})
-                entry[f"float32_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
+            o = r[key]
+            entry.update({f"float32_{h}_ms": o["cuda_core_ms"],
+                          f"float32_{h}_bound_ms": o["cuda_core_bound_ms"],
+                          f"float32_{h}_library_ms": o["library_ms"],
+                          f"float32_{h}_library_fwd_again_ms": o["library_fwd_again_ms"],
+                          f"float32_{h}_max_abs_err": max(
+                              v for n, v in o["max_abs_err"].items()
+                              if n.startswith("cuda_core_"))})
+        entry["bfloat16_launches"] = g160["bfloat16"]["launches"].get(name, 0)
+        entry["bfloat16_h160_launches"] = widths["models"]["embedding_160_bfloat16"][
+            "launches"][name]
         entry["work"] += ("; bfloat16_hN_* / float32_hN_*: layer 0 at E=H=N (5 groups, two dy "
                           "streams), 400 rows, T=1500, library: cuDNN one-layer there in that "
-                          "dtype"
-                          + ("; float32_hN_*: by name, in turns with bilstm_bwd_lite_f32, bound "
-                             "at 67 TFLOP/s" if key == "lite" else
-                             "; float32_hN_library_fwd_again_ms: cuDNN's training forward read "
-                             "a second time, after its backward"))
-        if key == "lite":
-            other_launches = entry["launches"]
-        else:
-            entry["bfloat16_launches"] = other_launches = g160["bfloat16"]["launches"].get(name, 0)
-            entry["work"] += "; bfloat16_launches: the bf16 model at embedding 160's steps"
-        if min(entry["launches"], other_launches) <= 0:
+                          "dtype; float32_hN_*: by name, in turns with bilstm_fwd_wide_f32, bound "
+                          "at 67 TFLOP/s, float32_hN_library_fwd_again_ms: cuDNN's training "
+                          "forward read a second time, after its backward; bfloat16_launches: "
+                          "the bf16 model at embedding 160's gradient and eval step, "
+                          "bfloat16_h160_launches: its timed steps")
+        if min(entry["launches"], entry["bfloat16_launches"],
+               entry["bfloat16_h160_launches"]) <= 0:
             raise AssertionError(f"the models at embedding 80 and 160 never ran {name}")
         kernels.append(entry)
     # the one-block bf16 wide forward (both variants): its main path is the
@@ -4302,19 +4330,14 @@ def main() -> int:
                                   if c["kernel"] == "bilstm_fwd_wide_mma_resident"
                                   for n, v in c["max_abs_err"].items()
                                   if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")]),
-            **{k: o[k] for k in ("ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms",
-                                 "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
+            **{k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
                                  "library_ms", "scaled_err")},
-            "cuda_core_max_abs_err": max(v for n, v in o["max_abs_err"].items()
-                                         if n.startswith("cuda_core_")),
             "h72_launches": widths["models"]["embedding_72_bfloat16"]["launches"][name],
             "work": "the stacked layer of the bf16 two-layer model at embedding 80 (E=80+80, run "
                     "at H=96, one weight group), 400 rows, T=1500; launches in that model's bf16 "
                     "steps (h72_launches: the bf16 model at embedding 72's, whose stacked layer "
                     "runs at the same shape); bound at the bf16 rate at H=96 (true_bound_ms at "
-                    "80); cuda_core_ms: bilstm_fwd_wide.cu by name on the same operands (new, "
-                    "old, old, new), its bound at 67 TFLOP/s cuda_core_bound_ms; library: cuDNN "
-                    "one-layer bf16 " + ("training forward" if key == "fwd" else "inference")
+                    "80); library: cuDNN one-layer bf16 " + ("training forward" if key == "fwd" else "inference")
                     + " at E=160, H=80, TF32 off; max_abs_err also over 27 rows in 3 groups at "
                       "T = 1 and 5",
         })
@@ -4423,6 +4446,42 @@ def main() -> int:
                                                          "max_active_clusters", "f32_copy_ms")})
         entry["h288_launches"] = f32_models["embedding_272_float32"]["launches"][name]
         entry["h128_launches"] = f32_models["embedding_100_float32"]["launches"][name]
+        if key != "gates":
+            # the forward's instances for 2 / 3, 3 and 3 / 4 unit groups a
+            # block: layer 0 at E = H = 160, 192, 224, in turns with
+            # bilstm_fwd_wide.cu by name; launches in the f32 model at
+            # embedding 160's timed steps and its gradient and eval step
+            for h, r in kf32.items():
+                o = r[key]
+                entry.update({f"{h}_{k}": o[k] for k in (
+                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "library_fwd_again_ms", "scaled_err")})
+                entry[f"{h}_max_abs_err"] = max(
+                    [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
+                    + [v for c in tk["ragged_checks"] if c["kernel"] == source
+                       and c["H"] == int(h[1:]) for n, v in c["max_abs_err"].items()
+                       if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")])
+                entry[f"{h}_cuda_core_max_abs_err"] = max(
+                    v for n, v in o["max_abs_err"].items() if n.startswith("cuda_core_"))
+                if key == "fwd":
+                    entry.update({f"{h}_{k}": o[k] for k in (
+                        "rows", "tiles", "max_active_clusters")})
+                    entry[f"{h}_rows_ms"] = {k: v for k, v in o.items()
+                                             if k.startswith("rows_") and k.endswith("_ms")}
+            entry["h160_launches"] = f32_models["embedding_160_float32"]["launches"][name]
+            entry["h160_grad_check_launches"] = g160["float32"]["launches"].get(name, 0)
+            entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in f32 (5 groups), "
+                              "400 rows, T=1500, the row tile of the plan (h160_rows_ms: each "
+                              "row tile, rows_R_dispatch_ms the dispatch in turns with it), "
+                              "cuda_core_ms: bilstm_fwd_wide.cu by name on the same operands "
+                              "(new, old, old, new), its bound at 67 TFLOP/s "
+                              "cuda_core_bound_ms, bound at 495/3, library: cuDNN one-layer f32 "
+                              "forward there (library_fwd_again_ms read again after its "
+                              "backward); max_abs_err also over 27 rows in 3 groups at T = 1 "
+                              "and 5; h160_launches: the f32 model at embedding 160's timed "
+                              "steps")
+            if min(entry["h160_launches"], entry["h160_grad_check_launches"]) <= 0:
+                raise AssertionError(f"the f32 model at embedding 160 never ran {name}")
         if min(entry["launches"], entry["h288_launches"], entry["h128_launches"]) <= 0:
             raise AssertionError(f"an f32 main path never ran {name}")
         kernels.append(entry)
@@ -4502,9 +4561,36 @@ def main() -> int:
             entry.update({f"uneven_h256_{k}": w16[f"lite_{v}"] for k, v in (
                 ("ms", "uneven_ms"), ("ms_again", "uneven_ms_again"), ("even_ms", "even_ms"),
                 ("max_abs_err", "uneven_max_abs_err"), ("rows", "uneven_rows"))})
-            entry["work"] += ("; uneven_h256_*: its instance for uneven groups (H=288's) by "
-                              "name on this row's operands, held against the twin, in turns "
-                              "with the H=256 kernel (uneven, even, even, uneven)")
+            entry["work"] += ("; uneven_h256_*: its instance for uneven groups (H=288's, its "
+                              "items dealt over 8 warps) by name on this row's operands, held "
+                              "against the twin, in turns with the H=256 kernel (uneven, even, "
+                              "even, uneven)")
+            # its instances for 2 / 3, 3 and 3 / 4 unit groups a block: layer 0
+            # at E = H = 160, 192, 224 in bf16, in turns with bilstm_bwd_lite.cu
+            # by name; launches in the bf16 model at embedding 160's timed
+            # steps and its gradient and eval step
+            for h, r in kbf16.items():
+                o = r["lite"]
+                entry.update({f"{h}_{k}": o[k] for k in (
+                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "scaled_err", "rows", "tiles",
+                    "max_active_clusters")})
+                entry[f"{h}_max_abs_err"] = max(
+                    [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
+                    + [v for c in tk["ragged_checks"] if c["kernel"] == name
+                       and c["H"] == int(h[1:]) for v in c["max_abs_err"].values()])
+                entry[f"{h}_cuda_core_max_abs_err"] = o["max_abs_err"]["cuda_core_dgates"]
+            entry["h160_launches"] = widths["models"]["embedding_160_bfloat16"]["launches"][name]
+            entry["h160_grad_check_launches"] = g160["bfloat16"]["launches"].get(name, 0)
+            entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in bf16 (5 groups, "
+                              "two dy streams), 400 rows, T=1500, the row tile of the plan, "
+                              "cuda_core_ms: bilstm_bwd_lite.cu by name on the same operands "
+                              "(new, old, old, new), its bound at 67 TFLOP/s cuda_core_bound_ms, "
+                              "library: cuDNN one-layer bf16 backward (input) there; max_abs_err "
+                              "also over 27 rows in 3 groups at T = 1 and 5; h160_launches: the "
+                              "bf16 model at embedding 160's timed steps")
+            if min(entry["h160_launches"], entry["h160_grad_check_launches"]) <= 0:
+                raise AssertionError("the bf16 model at embedding 160 never ran its lite sweep")
             entry["work"] += ("; h288_*: its instance for 4 or 5 unit groups a block on layer 0 "
                               "of the bf16 two-layer model at embedding 272 (E=272, run at "
                               "H=288, 5 groups, two dy streams), 400 rows, T=1500, bound at "
@@ -4554,14 +4640,12 @@ def main() -> int:
     entry["h288_launches"] = models["embedding_272_float32"]["launches"][name]
     entry["h128_launches"] = models["embedding_100_float32"]["launches"][name]
     # its instances for 2 / 3, 3 and 3 / 4 unit groups a block: layer 0 at
-    # E = H = 160, 192, 224 in f32, in turns with bilstm_bwd_lite.cu by name;
-    # launches in the f32 model at embedding 160's timed steps and its
-    # gradient and eval step
+    # E = H = 160, 192, 224 in f32; launches in the f32 model at embedding
+    # 160's timed steps and its gradient and eval step
     for h, r in kf32.items():
         o = r["lite"]
         entry.update({f"{h}_{k}": o[k] for k in (
-            "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "scaled_err")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scaled_err")})
         entry[f"{h}_max_abs_err"] = max(
             [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
             + [v for c in tk["ragged_checks"] if c["kernel"] == name and c["H"] == int(h[1:])
@@ -4569,11 +4653,10 @@ def main() -> int:
     entry["h160_launches"] = models["embedding_160_float32"]["launches"][name]
     entry["h160_grad_check_launches"] = g160["float32"]["launches"].get(name, 0)
     entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in f32 (5 groups, two dy "
-                      "streams), 400 rows, T=1500, the row tile of the plan, cuda_core_ms: "
-                      "bilstm_bwd_lite.cu by name on the same operands (new, old, old, new), its "
-                      "bound at 67 TFLOP/s cuda_core_bound_ms, library: cuDNN one-layer f32 "
-                      "backward (input) there; max_abs_err also over 27 rows in 3 groups at "
-                      "T = 1 and 5; h160_launches: the f32 model at embedding 160's timed steps")
+                      "streams), 400 rows, T=1500, the row tile of the plan, library: cuDNN "
+                      "one-layer f32 backward (input) there; max_abs_err also over 27 rows in 3 "
+                      "groups at T = 1 and 5; h160_launches: the f32 model at embedding 160's "
+                      "timed steps")
     if min(entry["launches"], entry["h288_launches"], entry["h128_launches"],
            entry["h160_launches"], entry["h160_grad_check_launches"]) <= 0:
         raise AssertionError("an f32 main path never ran the tensor-core lite sweep")
@@ -4824,7 +4907,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 39 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 38 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -49,12 +49,13 @@
 // partials are read). dc stays local. The partial buffer reuses the
 // h_prev tile's shared memory. The next step's h_prev tile, input gates,
 // c_prev and dy are loaded into registers while the current step computes.
-// At H = 128, 256 and 288 the tensor-core sweeps take over
-// (bilstm_bwd_lite_mma.cu in bf16, bilstm_bwd_lite_f32.cu in f32;
-// ops/lstm_cuda.py:lite_kernel); this kernel keeps 96, 160, 192 and 224 in
-// either dtype, and bf16 at 128 and 256 by name. It runs in blocks
-// instantiated for 256 threads (255 registers a thread). Not yet done: f32
-// on the tensor cores at its widths.
+// The tensor-core sweeps take every width a path runs
+// (ops/lstm_cuda.py:lite_kernel): bilstm_bwd_lite_mma.cu in bf16 at
+// 128-288, bilstm_bwd_lite_f32.cu in f32 there, and at 96 the one-block
+// bilstm_bwd_lite_mma_resident.cu and bilstm_bwd_lite_f32_resident.cu.
+// This kernel is reached by name only, in bf16 at 128 and 160-256, to time
+// it beside them. It runs in blocks instantiated for 256 threads (255
+// registers a thread).
 
 #include <cooperative_groups.h>
 

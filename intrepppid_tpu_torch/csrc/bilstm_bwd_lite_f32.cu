@@ -203,32 +203,11 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_f32_kernel(const 
   // ug: group q gets 8 / UG warps, the first 8 % UG groups one more (so at
   // 288 the 5-group blocks' last two groups get one warp each, warps 6 and
   // 7), which split its NT tiles. Lane (g, t) of item j holds `unit` for tile
-  // rows 8 (nt0 + j) + 2t + i
-  int ug = 0, first = 0, wpg = 1;
-  for (int q = 0; q < UG; ++q) {
-    const int m = kWarps / UG + (q < kWarps % UG);
-    if (warp < first + m) {
-      ug = q;
-      wpg = m;
-      break;
-    }
-    first += m;
-  }
-  const int nt0 = (warp - first) * NT / wpg, ni = (warp - first + 1) * NT / wpg - nt0;
+  // rows 8 (nt0 + j) + 2t + i. The dh product's warp order: by gate items,
+  // the fewest first, then by index (lstm_recurrence_wide_mma.cuh:deal_items)
+  const ItemDeal deal = deal_items(warp, UG, NT);
+  const int ug = deal.ug, nt0 = deal.nt0, ni = deal.ni, dh_rank = deal.dh_rank;
   const int unit = unit0 + 8 * ug + g;
-  // the dh product's warp order: by gate items, the fewest first, then by
-  // index (every warp computes every warp's item count of the same deal)
-  int dh_rank = 0;
-  {
-    int w = 0;
-    for (int q = 0; q < UG; ++q) {
-      const int m = kWarps / UG + (q < kWarps % UG);
-      for (int k = 0; k < m; ++k, ++w) {
-        const int n = (k + 1) * NT / m - k * NT / m;
-        dh_rank += n < ni || (n == ni && w < warp);
-      }
-    }
-  }
   const uint64_t pol = evict_last_policy();
   const uint4* wdg = a.wf + (size_t)(d * a.G + tr.group) * (H / 8) * (H / 8) * 64 + lane;
   const uint4* wa = wdg + (size_t)(glo + ug) * (H / 8) * 64;  // the group's fragments

@@ -2,8 +2,8 @@
 // compute dtype, for layers whose weights fit no block: the tensor-core
 // variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_bwd_lite.cu (which keeps f32 and the widths this
-// kernel does not take), the TPU kernel
+// Replaces, like bilstm_bwd_lite.cu (which no dispatch names since this
+// kernel took bf16 at 160-224: it stays for timing by name), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel with
 //     fused_input=False (via _bwd_pallas_lite, :723) -- the lite backward
 //     of the large-H plan (the scaled configuration's H = 256);
@@ -63,34 +63,52 @@
 //     waves (cudaOccupancyMaxActiveClusters) and shared memory.
 // This kernel takes H = 128 and 256 (8-unit groups per block: H % 64 == 0,
 // and the dh product's m16 tiles split evenly over 8 warps: H % 128 == 0).
+// bilstm_bwd_lite.cu keeps bf16 at 128 and 160-256 by name only.
 //
-// H = 288 (every bf16 layer of 257-288 units, padded there; layer 0 and the
-// stacked layer at embedding 272) takes a second kernel of the same design,
-// bilstm_bwd_lite_mma_uneven_kernel:
-//   * the 36 unit groups split 4 / 5 over the cluster's blocks
-//     (lstm_recurrence_wide_mma.cuh:unit_groups); warp w < UG owns local
-//     group w and every n8 tile of the row tile (gate product and cell),
-//     warp w the m16 tiles w, w + 8, w + 16 of the 18 in the dh product,
-//     whose K is the block's own 32 UG gate columns;
+// H = 160, 192, 224 and 288 (the widths whose n = H / 8 unit groups do not
+// split evenly over the cluster, or whose dh product's m16 tiles do not
+// split evenly over 8 warps: layer 0 of the bf16 models at embedding
+// 160-224, every bf16 layer of 257-288 units, padded to 288) take a second
+// kernel of the same design, bilstm_bwd_lite_mma_uneven_kernel:
+//   * block k owns groups [k n / 8, (k + 1) n / 8)
+//     (lstm_recurrence_wide_mma.cuh:unit_groups): 2 or 3 a block at 160, 3
+//     at 192, 3 or 4 at 224, 4 or 5 at 288; the slowest block sets the pace
+//     through the cluster barriers;
+//   * the gate product and the cell: the block's UG x NT (unit group, n8
+//     tile) items are dealt over all 8 warps (lstm_recurrence_wide_mma.cuh:
+//     deal_items, as in bilstm_bwd_lite_f32.cu), each warp's items inside
+//     one group, so the cell needs no exchange:
+//     group q gets 8 / UG warps (the first 8 % UG groups one more), which
+//     split its NT tiles. A 3-group block deals its warps 3, 3 and 2, so at
+//     32-row tiles no warp takes more than two items, where "warp w takes
+//     group w" left 5 of 8 warps idle and 3 with four;
+//   * the dh product (K the block's own 32 UG gate columns): the warp of
+//     rank r takes the m16 tiles r, r + 8, .. of the H / 16, its warps
+//     ranked by their gate items, the fewest first, then by index
+//     (deal_items' dh_rank): the 10, 12 and 14 tiles at 160, 192 and 224
+//     give their second tiles to the warps with one gate item;
 //   * the weights stay resident: the bf16 slice of the largest block (5
 //     groups, 160 gate rows of 288 + 8) is 94,720 B. Two buffers of the f32
 //     partial dh (2 x 288 x 40 x 4 B) would leave room for 16-row tiles
-//     only (50 clusters, 4 waves at the train step's 400 rows in 5 groups),
-//     so the partial is single and a step takes two cluster barriers, as in
-//     lstm_recurrence_bwd_wide_mma.cu: a block writes step s's partial only
-//     after every block has read step s - 1's (arrived at right after the
-//     read, waited on after the cell and the dh product). That fits 32-row
-//     tiles at 218,112 B: 30 clusters at the train step's shape, of which an
-//     H100 holds 15 at once (cudaOccupancyMaxActiveClusters, one block an
-//     SM): two waves;
+//     only at 288 (50 clusters, 4 waves at the train step's 400 rows in 5
+//     groups), so the partial is single and a step takes two cluster
+//     barriers, as in lstm_recurrence_bwd_wide_mma.cu: a block writes step
+//     s's partial only after every block has read step s - 1's (arrived at
+//     right after the read, waited on after the cell and the dh product, by
+//     when the other blocks, which read at the top of the step, have
+//     arrived). That fits 32-row tiles at 218,112 B: 30 clusters at the
+//     train step's shape, of which an H100 holds 15 at once
+//     (cudaOccupancyMaxActiveClusters, one block an SM): two waves. At 160,
+//     192 and 224 two buffers would fit too (129,024 / 149,504 / 192,512 B
+//     at 32 rows against 103,424 / 118,784 / 156,672 with one), but one
+//     block an SM and two waves hold either way, so the widths keep one
+//     schedule;
 //   * the last step forms no dh; the partials are read through 32-bit
 //     `mapa` addresses.
-// The C entry also launches this kernel at H = 256 (4 groups a block, 4
-// warps idle in the gate product and the cell) when its shared memory asks
-// for it, so that the two kernels can be timed in turns at the scaled
-// step's shape: whether one kernel could serve every width. It cannot:
-// there it takes about 1.4 x the time of bilstm_bwd_lite_mma_kernel
-// (chip_smoke.py phase wide_kernel, PERF.md), which keeps both.
+// The C entry also launches this kernel at H = 256 (4 groups a block, two
+// warps each) when its shared memory asks for it, so that the two kernels
+// can be timed in turns at the scaled step's shape: whether one kernel
+// could serve every width (PERF.md).
 
 #include <cooperative_groups.h>
 
@@ -498,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_kernel(const 
   cluster_wait_acquire();  // every block is done reading this block's partials
 }
 
-// ---------------------------------------------- H = 288: uneven group split
+// ------------------------------ H = 160, 192, 224, 288: uneven group split
 // Dynamic shared memory of the uneven instance <H, BR> (bytes): sized for
 // the block that owns the most groups, MG = ceil(H / 64); one partial buffer.
 __host__ __device__ constexpr int uneven_groups(int H) { return (H + 63) / 64; }
@@ -523,6 +541,8 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
   constexpr int UM = 8 * MG;            // most units a block owns
   constexpr int H4 = 4 * H;
   constexpr int NT = BR / 8;                          // n8 tiles of the row tile
+  constexpr int WPG = kWarps / MG;                    // fewest warps the deal gives a group
+  constexpr int GI = (NT + WPG - 1) / WPG;            // most gate items a warp takes
   constexpr int MT = H / 16;                          // m16 tiles of units (dh product)
   constexpr int MTW = (MT + kWarps - 1) / kWarps;     // most of them a warp owns
   constexpr int KS = H + kPad;                        // weight / h_prev row stride (bf16)
@@ -540,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
   constexpr int DY_AT = CS_AT + smem_cs_u(H, BR);
   constexpr int DG_AT = DY_AT + 2 * smem_cs_u(H, BR);
   constexpr int PART_AT = DG_AT + smem_dg_u(H, BR);
-  static_assert(H % 32 == 0 && MG <= kWarps && BR % 8 == 0, "shape");
+  static_assert(H % 32 == 0 && MG <= kWarps && BR % 8 == 0 && WPG >= 1, "shape");
   static_assert(smem_bytes_u(H, BR) == PART_AT + smem_part_u(H, BR), "layout");
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -670,23 +690,27 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
   fetch_step(pos0);
   cp_async_commit();
 
-  // gate items: warp w < UG owns local group w (units 8w .. 8w + 7 of the
-  // block) and every n8 tile; lane (g, t) the unit 8w + g and tile rows
-  // 8 nt + 2t + i
-  const bool gw = warp < UG;
-  const int ul = 8 * warp + g, unit = unit0 + ul;
-  int row[NT][2], len[NT][2];
-  float dh[NT][2], dc[NT][2];
+  // gate items: warp w takes n8 tiles [nt0, nt0 + ni) of local unit group
+  // ug (units 8 ug .. 8 ug + 7 of the block); lane (g, t) of item j holds
+  // the unit 8 ug + g for tile rows 8 (nt0 + j) + 2t + i. The deal: group q
+  // gets 8 / UG warps, the first 8 % UG groups one more, which split its NT
+  // tiles; the dh product ranks the warps by their gate items, the fewest
+  // first, then by index (lstm_recurrence_wide_mma.cuh:deal_items).
+  const recwide::ItemDeal deal = recwide::deal_items(warp, UG, NT);
+  const int ug = deal.ug, nt0 = deal.nt0, ni = deal.ni, dh_rank = deal.dh_rank;
+  const int ul = 8 * ug + g, unit = unit0 + ul;
+  int row[GI][2], len[GI][2];
+  float dh[GI][2], dc[GI][2];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int j = 0; j < GI; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = gw ? tile_row(tile, 8 * nt + 2 * t + i, BR, Bg) : -1;
-      row[nt][i] = r;
-      len[nt][i] = r >= 0 ? a.lengths[r] : 0;
+      const int r = j < ni ? tile_row(tile, 8 * (nt0 + j) + 2 * t + i, BR, Bg) : -1;
+      row[j][i] = r;
+      len[j][i] = r >= 0 ? a.lengths[r] : 0;
       const size_t at = ((size_t)d * B + (r >= 0 ? r : 0)) * H + (r >= 0 ? unit : 0);
-      dh[nt][i] = (r >= 0 && a.dhn) ? a.dhn[at] : 0.0f;
-      dc[nt][i] = (r >= 0 && a.dcn) ? a.dcn[at] : 0.0f;
+      dh[j][i] = (r >= 0 && a.dhn) ? a.dhn[at] : 0.0f;
+      dc[j][i] = (r >= 0 && a.dcn) ? a.dcn[at] : 0.0f;
       // the forward direction's sweep starts at T - 1: past the tile's
       // longest row a step only adds dy to dh, in the same order as the full sweep
       if (d == 0 && r >= 0 && ny > 0) {
@@ -694,26 +718,26 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
           float dyv = 0.0f;
           for (int k = 0; k < ny; ++k)
             dyv += __bfloat162float(a.dy[0][k][((size_t)pos * B + r) * H + unit]);
-          dh[nt][i] += dyv;
+          dh[j][i] += dyv;
         }
       }
     }
 
   const uint32_t W_u32 = smem0 + W_AT;
-  // gate product: A rows 32 w + 16 mt + lr + 8 (lm & 1), columns k0 + 8 (lm >> 1);
-  // B: h_prev tile rows 8 nt + lr, columns k0 + 8 lm (two k16 steps a load)
-  const uint32_t a_gate = W_u32 + (uint32_t)(((32 * warp + lr + 8 * (lm & 1)) * KS +
+  // gate product: A rows 32 ug + 16 mt + lr + 8 (lm & 1), columns k0 + 8 (lm >> 1);
+  // B: h_prev tile rows 8 (nt0 + j) + lr, columns k0 + 8 lm (two k16 steps a load)
+  const uint32_t a_gate = W_u32 + (uint32_t)(((32 * ug + lr + 8 * (lm & 1)) * KS +
                                               8 * (lm >> 1)) * 2);
-  const uint32_t b_gate = (uint32_t)((lr * KS + 8 * lm) * 2);
-  float acc[NT][2][4];
+  const uint32_t b_gate = (uint32_t)(((8 * nt0 + lr) * KS + 8 * lm) * 2);
+  float acc[GI][2][4];
   auto gate_mma = [&](int buf) {
-    if (!gw) return;
+    if (ni == 0) return;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < GI; ++j)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[nt][mt][v] = 0.0f;
+        for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.0f;
     const uint32_t b_base = smem0 + HP_AT + (uint32_t)(buf * BR * KS * 2) + b_gate;
     uint32_t fa[2][2][2][4];  // [buffer][k16 half][mt]
     auto load_a = [&](uint32_t (&f)[2][2][4], int r) {
@@ -729,22 +753,23 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
       uint32_t(&f)[2][2][4] = fa[r & 1];
       if (r + 1 < H / 32) load_a(fa[(r + 1) & 1], r + 1);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int j = 0; j < GI; ++j) {
+        if (j >= ni) continue;
         uint32_t b[4];
-        ldmatrix_x4(b, b_base + (uint32_t)((8 * nt * KS + 32 * r) * 2));
+        ldmatrix_x4(b, b_base + (uint32_t)((8 * j * KS + 32 * r) * 2));
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[nt][mt], f[kh][mt], b[2 * kh], b[2 * kh + 1]);
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[j][mt], f[kh][mt], b[2 * kh], b[2 * kh + 1]);
       }
     }
   };
   // dh product: A = W_slice^T, stored rows (gate rows) 8 (lm >> 1) + lr,
-  // columns (units) 16 m + 8 (lm & 1) of this warp's m16 tiles m = w + 8 j,
-  // through ldmatrix.trans; B: dgates tile rows 8 nt + lr, columns p0 + 8 lm;
-  // K: the block's 32 UG gate rows
-  const int nmt = MT > warp ? min(MTW, (MT - warp + kWarps - 1) / kWarps) : 0;
-  const uint32_t a_dh = W_u32 + (uint32_t)(((8 * (lm >> 1) + lr) * KS + 16 * warp +
+  // columns (units) 16 m + 8 (lm & 1) of this warp's m16 tiles m = dh_rank
+  // + 8 j, through ldmatrix.trans; B: dgates tile rows 8 nt + lr, columns
+  // p0 + 8 lm; K: the block's 32 UG gate rows
+  const int nmt = MT > dh_rank ? min(MTW, (MT - dh_rank + kWarps - 1) / kWarps) : 0;
+  const uint32_t a_dh = W_u32 + (uint32_t)(((8 * (lm >> 1) + lr) * KS + 16 * dh_rank +
                                             8 * (lm & 1)) * 2);
   const uint32_t b_dh = smem0 + DG_AT + (uint32_t)((lr * DS + 8 * lm) * 2);
   float c[MTW][NT][4];
@@ -797,13 +822,14 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
     if (s > 0) {
       // dh of this step: the 8 partials of the previous step, in rank order
       cluster_wait_acquire();
-      if (gw) {
+      if (ni > 0) {
         uint32_t rank_base[kWideCluster];
 #pragma unroll
         for (int k = 0; k < kWideCluster; ++k) rank_base[k] = recwide::mapa_u32(part_u32, k);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t off = (uint32_t)((unit * PS + 8 * nt + 2 * t) * 4);
+        for (int j = 0; j < GI; ++j) {
+          if (j >= ni) continue;
+          const uint32_t off = (uint32_t)((unit * PS + 8 * (nt0 + j) + 2 * t) * 4);
           float2 p[kWideCluster];
 #pragma unroll
           for (int k = 0; k < kWideCluster; ++k) p[k] = recwide::ld_dsmem_f2(rank_base[k] + off);
@@ -813,8 +839,8 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
             s0 += p[k].x;
             s1 += p[k].y;
           }
-          dh[nt][0] = s0 + dh[nt][0];  // dh holds what the masked rows passed through
-          dh[nt][1] = s1 + dh[nt][1];
+          dh[j][0] = s0 + dh[j][0];  // dh holds what the masked rows passed through
+          dh[j][1] = s1 + dh[j][1];
         }
       }
       asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");  // done reading
@@ -822,42 +848,42 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
       __syncthreads();  // this step's xg, c_prev and dy (and the next h_prev) landed
     }
 
-    // the cell: lane (g, t) holds the four gates of unit `ul` for rows 2t, 2t + 1
-    if (gw) {
+    // the cell: lane (g, t) holds the four gates of unit `ul` for rows 2t,
+    // 2t + 1 of n8 tile nt0 + j
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < GI; ++j) {
+      if (j >= ni) continue;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int rl = 8 * nt + 2 * t + i;
-          const float* xv = xg_s + rl * XS + ul;
-          const float ig = fast_sigmoid(xv[0] + acc[nt][0][i]);
-          const float fg = fast_sigmoid(xv[U] + acc[nt][0][2 + i]);
-          const float gg = fast_tanh(xv[2 * U] + acc[nt][1][i]);
-          const float og = fast_sigmoid(xv[3 * U] + acc[nt][1][2 + i]);
-          const float cprev = __bfloat162float(cs_s[rl * UM + ul]);
-          float dyv = 0.0f;
-          for (int k = 0; k < ny; ++k) dyv += __bfloat162float(dy_s[(k * BR + rl) * UM + ul]);
-          const float c_new = fg * cprev + ig * gg;
-          const float dht = dh[nt][i] + dyv;
-          const float tc = fast_tanh(c_new);
-          const float dct = dc[nt][i] + dht * og * (1.0f - tc * tc);
-          const bool m = pos < len[nt][i];
-          float g4[4];
-          g4[0] = m ? dct * gg * ig * (1.0f - ig) : 0.0f;
-          g4[1] = m ? dct * cprev * fg * (1.0f - fg) : 0.0f;
-          g4[2] = m ? dct * ig * (1.0f - gg * gg) : 0.0f;
-          g4[3] = m ? dht * tc * og * (1.0f - og) : 0.0f;
-          dc[nt][i] = m ? dct * fg : dc[nt][i];
-          dh[nt][i] = m ? 0.0f : dht;  // passed through to the next step where masked
-          if (row[nt][i] >= 0) {
-            float* dst = dgd + ((size_t)pos * B + row[nt][i]) * H4 + unit;
+      for (int i = 0; i < 2; ++i) {
+        const int rl = 8 * (nt0 + j) + 2 * t + i;
+        const float* xv = xg_s + rl * XS + ul;
+        const float ig = fast_sigmoid(xv[0] + acc[j][0][i]);
+        const float fg = fast_sigmoid(xv[U] + acc[j][0][2 + i]);
+        const float gg = fast_tanh(xv[2 * U] + acc[j][1][i]);
+        const float og = fast_sigmoid(xv[3 * U] + acc[j][1][2 + i]);
+        const float cprev = __bfloat162float(cs_s[rl * UM + ul]);
+        float dyv = 0.0f;
+        for (int k = 0; k < ny; ++k) dyv += __bfloat162float(dy_s[(k * BR + rl) * UM + ul]);
+        const float c_new = fg * cprev + ig * gg;
+        const float dht = dh[j][i] + dyv;
+        const float tc = fast_tanh(c_new);
+        const float dct = dc[j][i] + dht * og * (1.0f - tc * tc);
+        const bool m = pos < len[j][i];
+        float g4[4];
+        g4[0] = m ? dct * gg * ig * (1.0f - ig) : 0.0f;
+        g4[1] = m ? dct * cprev * fg * (1.0f - fg) : 0.0f;
+        g4[2] = m ? dct * ig * (1.0f - gg * gg) : 0.0f;
+        g4[3] = m ? dht * tc * og * (1.0f - og) : 0.0f;
+        dc[j][i] = m ? dct * fg : dc[j][i];
+        dh[j][i] = m ? 0.0f : dht;  // passed through to the next step where masked
+        if (row[j][i] >= 0) {
+          float* dst = dgd + ((size_t)pos * B + row[j][i]) * H4 + unit;
 #pragma unroll
-            for (int q = 0; q < 4; ++q) dst[q * H] = g4[q];
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            dg_s[rl * DS + 32 * warp + 8 * q + g] = __float2bfloat16_rn(g4[q]);
+          for (int q = 0; q < 4; ++q) dst[q * H] = g4[q];
         }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dg_s[rl * DS + 32 * ug + 8 * q + g] = __float2bfloat16_rn(g4[q]);
+      }
     }
     if (s + 1 == maxlen) break;  // the last step's dh is dead
     __syncthreads();  // the dgates tile is complete; every warp is past this step's tiles
@@ -872,7 +898,7 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_lite_mma_uneven_kernel
 #pragma unroll
     for (int j = 0; j < MTW; ++j) {
       if (j >= nmt) continue;
-      const int u = 16 * (warp + kWarps * j) + g;
+      const int u = 16 * (dh_rank + kWarps * j) + g;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         *reinterpret_cast<float2*>(part_s + u * PS + 8 * nt + 2 * t) =
@@ -902,6 +928,16 @@ int launch_uneven(const Args& a, int tiles, int smem, cudaStream_t stream, int* 
                      max_clusters, a);
 }
 
+// The uneven instances by row tile: 16 and 32.
+template <int H>
+int launch_uneven_rows(int rows, const Args& a, int tiles, int smem, cudaStream_t st, int* mc) {
+  switch (rows) {
+    case 16: return launch_uneven<H, 16>(a, tiles, smem, st, mc);
+    case 32: return launch_uneven<H, 32>(a, tiles, smem, st, mc);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -916,15 +952,16 @@ const char* bilstm_bwd_lite_mma_error_string(int err) {
 }
 
 // The compute dtype is bfloat16. `rows` is the row tile (16, 32, 40 or 80;
-// 80 at H = 128 only; 16 or 32 at H = 288) and `smem` its dynamic shared
-// memory, as ops/lstm_cuda.py:wide_smem("lite_mma", ...) computes it
-// (refused otherwise); at H = 256, 16 or 32 rows, the shared memory of the
-// uneven instance (wide_smem("lite_mma_uneven", ...)) launches that one. xg
-// (2, T, B, 4H) f32; w_hh (2, G, 4H, H); hs_f, hs_b, cs_f, cs_b and the dy
-// streams (T, B, H) bf16 (dy*1 may be null, ny = 0-2 streams per direction);
-// dhn / dcn (2, B, H) f32 or null (zero); dgates (2, T, B, 4H) f32. H = 128,
-// 256 or 288; each of the G weight groups (B / G rows) is cut into its own tiles
-// of `rows` rows: `tiles` = G * ceil(B / G / rows). With max_clusters
+// 80 at H = 128 only; 16 or 32 at H = 160, 192, 224 and 288) and `smem` its
+// dynamic shared memory, as ops/lstm_cuda.py:wide_smem("lite_mma", ...)
+// computes it (refused otherwise); at H = 256, 16 or 32 rows, the shared
+// memory of the uneven instance (wide_smem("lite_mma_uneven", ...))
+// launches that one. xg (2, T, B, 4H) f32; w_hh (2, G, 4H, H);
+// hs_f, hs_b, cs_f, cs_b and the dy streams (T, B, H) bf16 (dy*1 may be
+// null, ny = 0-2 streams per direction); dhn / dcn (2, B, H) f32 or null
+// (zero); dgates (2, T, B, 4H) f32. H = 128, 160, 192, 224, 256 or 288;
+// each of the G weight groups (B / G rows) is cut into its own tiles of
+// `rows` rows: `tiles` = G * ceil(B / G / rows). With max_clusters
 // non-null, nothing is launched: it receives how many clusters the card
 // holds at once. Returns a cudaError_t (0 on success).
 int bilstm_bwd_lite_mma(int rows, const void* xg, const void* lengths, const void* w_hh,
@@ -949,33 +986,32 @@ int bilstm_bwd_lite_mma(int rows, const void* xg, const void* lengths, const voi
   a.dgates = static_cast<float*>(dgates);
   a.T = T_steps; a.B = B; a.G = G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H == 256) {
-    // the uneven instance by its shared memory: timed against this one
-    const bool uneven = smem == smem_bytes_u(256, rows);
-    switch (rows) {
-      case 16:
-        return uneven ? launch_uneven<256, 16>(a, tiles, smem, st, max_clusters)
-                      : launch<256, 16>(a, tiles, smem, st, max_clusters);
-      case 32:
-        return uneven ? launch_uneven<256, 32>(a, tiles, smem, st, max_clusters)
-                      : launch<256, 32>(a, tiles, smem, st, max_clusters);
-      case 40: return launch<256, 40>(a, tiles, smem, st, max_clusters);
-      default: break;
-    }
-  } else if (H == 128) {
-    switch (rows) {
-      case 16: return launch<128, 16>(a, tiles, smem, st, max_clusters);
-      case 32: return launch<128, 32>(a, tiles, smem, st, max_clusters);
-      case 40: return launch<128, 40>(a, tiles, smem, st, max_clusters);
-      case 80: return launch<128, 80>(a, tiles, smem, st, max_clusters);
-      default: break;
-    }
-  } else if (H == 288) {
-    switch (rows) {
-      case 16: return launch_uneven<288, 16>(a, tiles, smem, st, max_clusters);
-      case 32: return launch_uneven<288, 32>(a, tiles, smem, st, max_clusters);
-      default: break;
-    }
+  switch (H) {
+    case 128:
+      switch (rows) {
+        case 16: return launch<128, 16>(a, tiles, smem, st, max_clusters);
+        case 32: return launch<128, 32>(a, tiles, smem, st, max_clusters);
+        case 40: return launch<128, 40>(a, tiles, smem, st, max_clusters);
+        case 80: return launch<128, 80>(a, tiles, smem, st, max_clusters);
+        default: break;
+      }
+      break;
+    case 256:
+      // the uneven instance by its shared memory: timed against this one
+      if ((rows == 16 || rows == 32) && smem == smem_bytes_u(256, rows))
+        return launch_uneven_rows<256>(rows, a, tiles, smem, st, max_clusters);
+      switch (rows) {
+        case 16: return launch<256, 16>(a, tiles, smem, st, max_clusters);
+        case 32: return launch<256, 32>(a, tiles, smem, st, max_clusters);
+        case 40: return launch<256, 40>(a, tiles, smem, st, max_clusters);
+        default: break;
+      }
+      break;
+    case 160: return launch_uneven_rows<160>(rows, a, tiles, smem, st, max_clusters);
+    case 192: return launch_uneven_rows<192>(rows, a, tiles, smem, st, max_clusters);
+    case 224: return launch_uneven_rows<224>(rows, a, tiles, smem, st, max_clusters);
+    case 288: return launch_uneven_rows<288>(rows, a, tiles, smem, st, max_clusters);
+    default: break;
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -46,10 +46,11 @@
 // does not fit beside the weights at the tile sizes that fill one wave).
 // Both are in bilstm_fwd_wide_mma.cu (bf16 at H = 128 and 256: one bf16
 // weight copy leaves room for two h tiles), which takes those shapes over;
-// this kernel keeps the other widths (96, 160, 192, 224 in either dtype;
-// bilstm_fwd_wide_f32.cu takes f32 at 128, 256 and 288, and bf16 at 128 and
-// 256 reaches this kernel by name). It runs in blocks instantiated for 256
-// threads (255 registers a thread).
+// this kernel keeps f32 at 96 and bf16 at 160, 192 and 224
+// (bilstm_fwd_wide_f32.cu takes f32 at 128-288, bilstm_fwd_wide_mma_resident.cu
+// bf16 at 96; f32 at 160-224 and bf16 at 128 and 256 reach this kernel by
+// name). It runs in blocks instantiated for 256 threads (255 registers a
+// thread).
 
 #include <cooperative_groups.h>
 

@@ -9,8 +9,8 @@
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _fwd_kernel (via _fwd_pallas,
 //     :376) -- the wide route's recurrence (ops/lstm_cuda.py:layer_route),
 //     with_states=False (eval variant, cs null) and True (train variant:
-//     also the cell streams), for compute dtype float32 at H = 128, 256
-//     and 288 (ops/lstm_cuda.py:wide_fwd_kernel).
+//     also the cell streams), for compute dtype float32 at H = 128, 160,
+//     192, 224, 256 and 288 (ops/lstm_cuda.py:wide_fwd_kernel).
 //
 // Function (the contract of ops/lstm.py:bidir_recurrence with the compute
 // dtype f32, where round() is the identity): for each direction d (0
@@ -35,7 +35,9 @@
 //   * a cluster of 8 blocks per (row tile, direction), 8 warps a block;
 //     block k owns groups [k n / 8, (k + 1) n / 8) of the n = H / 8 unit
 //     groups (lstm_recurrence_wide_mma.cuh:unit_groups): 2 a block at 128,
-//     4 at 256, 4 or 5 at 288;
+//     2 or 3 at 160, 3 at 192, 3 or 4 at 224, 4 at 256, 4 or 5 at 288 (the
+//     instance for MG = max_block_groups(H) groups takes each width; the
+//     slowest block sets the pace through the cluster barrier);
 //   * the weights are the f32 fragment copy of W_hh^T that the f32 lite
 //     sweep reads (ops/lstm_cuda.py:recurrence_f32_weights of w_hh
 //     transposed), read from L2: each fragment once a step for all of a
@@ -44,7 +46,9 @@
 //     gates for 8 rows in one lane, are dealt over all 8 warps as in
 //     bilstm_bwd_lite_f32.cu: each warp's items inside one group, group q
 //     getting 8 / UG warps (the first 8 % UG one more), which split its NT
-//     tiles, so the cell needs no exchange;
+//     tiles, so the cell needs no exchange. A 3-group block deals its
+//     warps 3, 3 and 2, so at 32-row tiles no warp takes more than two
+//     items (as at 256), and at 16-row tiles one;
 //   * the tile's f32 h lives in every block, double-buffered: step s reads
 //     buffer s % 2 and pushes the block's new h into buffer (s + 1) % 2 of
 //     all 8 blocks through distributed shared memory, 16-byte stores of
@@ -56,10 +60,11 @@
 //   * a tile stops at its longest row: past it the forward direction writes
 //     its frozen state, the reverse direction zeros (its state before its
 //     first real step);
-//   * row tiles BR of 16 or 32 at H = 128 and 256 and of 16 at 288, each
-//     weight group cut into its own tiles (ops/lstm_cuda.py:wide_plan(
-//     "fwd_f32", ...) picks the tile by waves,
-//     cudaOccupancyMaxActiveClusters, then the smallest). Shared memory, in
+//   * row tiles BR of 16 or 32 where every unit group gets two warps or
+//     more (MG <= 4: H = 128-256) and of 16 at 288, each weight group cut
+//     into its own tiles (ops/lstm_cuda.py:wide_plan("fwd_f32", ...) picks
+//     the tile by waves, cudaOccupancyMaxActiveClusters, then the
+//     smallest). Shared memory, in
 //     bytes: the h tiles 2 BR (H + 16) 4 and the staging BR (8 ceil(H / 64)
 //     + 16) 4, which leaves room for two blocks an SM. A 32-row tile at 288
 //     gives the 5-group blocks' lone warps 4 items, and a step's time
@@ -148,19 +153,11 @@ __global__ void __launch_bounds__(kThreads, 2) bilstm_fwd_wide_f32_kernel(const 
   for (int rl = 0; rl < tr.nrows; ++rl) maxlen = max(maxlen, min(a.lengths[tr.row0 + rl], T));
 
   // items: warp w takes n8 tiles [nt0, nt0 + ni) of local unit group ug
-  // (group q gets 8 / UG warps, the first 8 % UG groups one more); lane
-  // (g, t) of item j holds `unit` for tile rows 8 (nt0 + j) + 2t + i
-  int ug = 0, first = 0, wpg = 1;
-  for (int q = 0; q < UG; ++q) {
-    const int m = kWarps / UG + (q < kWarps % UG);
-    if (warp < first + m) {
-      ug = q;
-      wpg = m;
-      break;
-    }
-    first += m;
-  }
-  const int nt0 = (warp - first) * NT / wpg, ni = (warp - first + 1) * NT / wpg - nt0;
+  // (group q gets 8 / UG warps, the first 8 % UG groups one more:
+  // lstm_recurrence_wide_mma.cuh:deal_items); lane (g, t) of item j holds
+  // `unit` for tile rows 8 (nt0 + j) + 2t + i
+  const ItemDeal deal = deal_items(warp, UG, NT);
+  const int ug = deal.ug, nt0 = deal.nt0, ni = deal.ni;
   const int unit = unit0 + 8 * ug + g;
   int row[GI][2], len[GI][2];
   float h[GI][2], c[GI][2], xv[GI][2][4];
@@ -341,16 +338,19 @@ int launch(const Args& a, int tiles, int smem, cudaStream_t stream, int* max_clu
                      max_clusters, a);
 }
 
-// The instances by row tile: 16 and 32 where each block holds the same
-// groups (H % 64 == 0), 16 at H = 288.
+// The instances by row tile: 16 and 32 where every unit group gets two
+// warps or more (MG <= 4), 16 at H = 288.
 template <int H>
 int launch_rows(int rows, const Args& a, int tiles, int smem, cudaStream_t st, int* mc) {
   if (rows == 16) return launch<H, 16>(a, tiles, smem, st, mc);
-  if constexpr (H % 64 == 0) {
+  if constexpr (kWarps / max_block_groups(H) >= 2) {
     if (rows == 32) return launch<H, 32>(a, tiles, smem, st, mc);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The widths the kernel is instantiated for.
+constexpr int kWidths[6] = {128, 160, 192, 224, 256, 288};
 
 }  // namespace
 
@@ -359,9 +359,14 @@ extern "C" {
 int bilstm_fwd_wide_f32_cluster() { return kWideCluster; }
 int bilstm_fwd_wide_f32_threads() { return kThreads; }
 int bilstm_fwd_wide_f32_pad() { return kFPad; }
-// the widths, as three 10-bit fields, and the row tiles, as masks of
-// rows / 8 in 8-bit fields (H % 64 == 0 lowest, then H = 288)
-int bilstm_fwd_wide_f32_widths() { return (128 << 20) | (256 << 10) | 288; }
+// the widths as a bit mask of H / 32 (every width is a multiple of 32), and
+// the row tiles as masks of rows / 8 in 8-bit fields (MG <= 4 lowest, then
+// H = 288)
+int bilstm_fwd_wide_f32_widths() {
+  int mask = 0;
+  for (int h : kWidths) mask |= 1 << (h / 32);
+  return mask;
+}
 int bilstm_fwd_wide_f32_rows() { return 0x14 | (0x04 << 8); }
 
 const char* bilstm_fwd_wide_f32_error_string(int err) {
@@ -369,13 +374,13 @@ const char* bilstm_fwd_wide_f32_error_string(int err) {
 }
 
 // The compute dtype is float32. `rows` is the row tile (16 or 32 at
-// H = 128 and 256, 16 at 288) and `smem` its dynamic shared memory, as
+// H = 128-256, 16 at 288) and `smem` its dynamic shared memory, as
 // ops/lstm_cuda.py:wide_smem computes it (refused otherwise). xg
 // (2, T, B, 4H) f32; lengths (B,) int32; wf the f32 fragment copy of W_hh^T
 // (ops/lstm_cuda.py:recurrence_f32_weights of w_hh (2, G, 4H, H)
 // transposed to (2, G, H, 4H)); hs_f, hs_b (and cs_f, cs_b, both null for
-// the eval variant) (T, B, H) f32; hn, cn (2, B, H) f32. H = 128, 256 or
-// 288; each of the G weight groups (B / G rows) is cut into its own tiles of
+// the eval variant) (T, B, H) f32; hn, cn (2, B, H) f32. H is one of
+// kWidths; each of the G weight groups (B / G rows) is cut into its own tiles of
 // `rows` rows: `tiles` = G * ceil(B / G / rows). With max_clusters
 // non-null, nothing is launched: it receives how many clusters the card
 // holds at once. Returns a cudaError_t (0 on success).
@@ -397,6 +402,9 @@ int bilstm_fwd_wide_f32(int rows, const void* xg, const void* lengths,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 128: return launch_rows<128>(rows, a, tiles, smem, st, max_clusters);
+    case 160: return launch_rows<160>(rows, a, tiles, smem, st, max_clusters);
+    case 192: return launch_rows<192>(rows, a, tiles, smem, st, max_clusters);
+    case 224: return launch_rows<224>(rows, a, tiles, smem, st, max_clusters);
     case 256: return launch_rows<256>(rows, a, tiles, smem, st, max_clusters);
     case 288: return launch_rows<288>(rows, a, tiles, smem, st, max_clusters);
     default: return (int)cudaErrorInvalidValue;

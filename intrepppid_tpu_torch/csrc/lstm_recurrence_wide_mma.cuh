@@ -52,6 +52,44 @@ __device__ __forceinline__ void unit_groups(int H, int rank, int& lo, int& hi) {
   hi = (rank + 1) * n / kWideCluster;
 }
 
+// The item deal of the kernels whose blocks own fewer unit groups than they
+// have warps (bilstm_bwd_lite_f32.cu, bilstm_bwd_lite_mma.cu's uneven
+// kernel, bilstm_fwd_wide_f32.cu): a block's UG x NT (unit group, n8 tile)
+// items over its kWarps warps, each warp's items inside one group, so the
+// cell needs no exchange. Group q gets kWarps / UG warps, the first
+// kWarps % UG groups one more, which split its NT tiles: warp `warp` takes
+// tiles [nt0, nt0 + ni) of local group ug. dh_rank is the warp's place in
+// the sweeps' dh product, the warps ranked by their gate items, the fewest
+// first, then by index (every warp computes every warp's count of the same
+// deal).
+struct ItemDeal {
+  int ug, nt0, ni, dh_rank;
+};
+__host__ __device__ inline ItemDeal deal_items(int warp, int UG, int NT) {
+  ItemDeal r{0, 0, 0, 0};
+  int first = 0, wpg = 1;
+  for (int q = 0; q < UG; ++q) {
+    const int m = kWarps / UG + (q < kWarps % UG);
+    if (warp < first + m) {
+      r.ug = q;
+      wpg = m;
+      break;
+    }
+    first += m;
+  }
+  r.nt0 = (warp - first) * NT / wpg;
+  r.ni = (warp - first + 1) * NT / wpg - r.nt0;
+  int w = 0;
+  for (int q = 0; q < UG; ++q) {
+    const int m = kWarps / UG + (q < kWarps % UG);
+    for (int k = 0; k < m; ++k, ++w) {
+      const int n = (k + 1) * NT / m - k * NT / m;
+      r.dh_rank += n < r.ni || (n == r.ni && w < warp);
+    }
+  }
+  return r;
+}
+
 // The row tile: its first row, its real rows (the rest, past its weight
 // group's end, are padding that never reaches an output) and its group.
 struct TileRows {

@@ -285,10 +285,11 @@ GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K, GATES_MMA_STAGES = 128, 12
 GATES_MMA_SMEM = GATES_MMA_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
     GATES_MMA_TILE_K + MMA_PAD) * 2
 # the tensor-core lite sweep: the widths and row tiles it is instantiated
-# for (a row tile is a multiple of the n8 tile; at 288, whose unit groups
-# split unevenly over the cluster, 16 and 32), threads a block, and the
-# padding of its f32 xg rows (its bf16 rows take MMA_PAD)
-LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 256, 288), (16, 32, 40, 80)
+# for (a row tile is a multiple of the n8 tile; at 160, 192, 224 and 288,
+# whose unit groups or dh tiles split unevenly, its second kernel, 16 and
+# 32), threads a block, and the padding of its f32 xg rows (its bf16 rows
+# take MMA_PAD)
+LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 160, 192, 224, 256, 288), (16, 32, 40, 80)
 LITE_MMA_UNEVEN_ROWS = (16, 32)
 LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
 # the tensor-core wide forward: the widths and row tiles it is instantiated
@@ -346,14 +347,15 @@ GATES_F32_TILE_K, GATES_F32_STAGES = 16, 4
 GATES_F32_SMEM = GATES_F32_STAGES * (GATES_MMA_TILE_M + GATES_MMA_TILE_N) * (
     GATES_F32_TILE_K + 4) * 4
 # the f32 tensor-core wide forward (three tf32 passes on the lite sweep's f32
-# fragment copy, read from L2): its widths and its row tiles where each
-# block holds the same unit groups (128, 256)
-FWD_WIDE_F32_WIDTHS = (128, 256, 288)
+# fragment copy, read from L2): its widths and its row tiles where every
+# unit group of a block gets two warps or more (at most 4 groups a block:
+# H = 128-256)
+FWD_WIDE_F32_WIDTHS = (128, 160, 192, 224, 256, 288)
 FWD_WIDE_F32_ROWS = (16, 32)
 # its row tiles at 288 (4 or 5 unit groups a block): a 32-row tile gives
 # the 5-group blocks' lone warps 4 items, and its one wave took 1.23 x two
 # waves of 16-row tiles (PERF.md)
-FWD_WIDE_F32_UNEVEN_ROWS = (16,)
+FWD_WIDE_F32_ROWS_288 = (16,)
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
@@ -535,10 +537,9 @@ _CONSTANTS = {
     "bilstm_fwd_wide_f32": (tuple(f"bilstm_fwd_wide_f32_{c}" for c in (
         "cluster", "threads", "pad", "widths", "rows")),
         (WIDE_CLUSTER, LITE_MMA_THREADS, REC_WIDE_F32_PAD,
-         sum(h << (10 * (len(FWD_WIDE_F32_WIDTHS) - 1 - i))
-             for i, h in enumerate(FWD_WIDE_F32_WIDTHS)),
+         sum(1 << (h // 32) for h in FWD_WIDE_F32_WIDTHS),
          sum(sum(1 << (r // 8) for r in rows) << (8 * i)
-             for i, rows in enumerate((FWD_WIDE_F32_ROWS, FWD_WIDE_F32_UNEVEN_ROWS))))),
+             for i, rows in enumerate((FWD_WIDE_F32_ROWS, FWD_WIDE_F32_ROWS_288))))),
     "bilstm_bwd_lite_f32_resident": (tuple(f"bilstm_bwd_lite_f32_resident_{c}" for c in (
         "tile", "max_h", "max_threads", "stride_align", "stride_pad")),
         (MMA_TILE, max(LITE_F32_RESIDENT_WIDTHS), 4 * max(LITE_F32_RESIDENT_WIDTHS),
@@ -1124,7 +1125,8 @@ def lite_mma_check(H: int, dtype: torch.dtype) -> None:
     (``csrc/bilstm_bwd_lite_mma.cu``) does not take: it takes bfloat16 at
     H in ``LITE_MMA_WIDTHS``: 128 and 256 (whole 8-unit groups in each of
     the cluster's 8 blocks, and the dh product's m16 tiles evenly over 8
-    warps) and 288 (an instance for 4 or 5 groups a block)."""
+    warps), and 160, 192, 224 and 288 (a second kernel, its instances for
+    2 / 3, 3, 3 / 4 and 4 / 5 groups a block)."""
     if dtype != torch.bfloat16 or H not in LITE_MMA_WIDTHS:
         raise ValueError(
             f"bilstm_bwd_lite_mma kernel takes bfloat16 with H in {list(LITE_MMA_WIDTHS)}, "
@@ -1190,14 +1192,14 @@ def lite_mma_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
 def lite_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's sweep takes, by width and dtype alone:
     ``"bilstm_bwd_lite_mma"`` where ``lite_mma_check`` passes (bf16, H = 128,
-    256 or 288), ``"bilstm_bwd_lite_f32"`` where ``lite_f32_check`` passes
-    (f32 at those widths and at 160, 192 and 224),
+    160, 192, 224, 256 or 288), ``"bilstm_bwd_lite_f32"`` where
+    ``lite_f32_check`` passes (f32 at those widths),
     ``"bilstm_bwd_lite_f32_resident"`` where ``lite_f32_resident_plan``
     takes it (f32 at 96), ``"bilstm_bwd_lite_mma_resident"`` where
     ``lite_mma_resident_plan`` takes it (bf16 at 96), else
     ``"bilstm_bwd_lite"`` where ``wide_check`` passes (the widths the
-    tensor-core sweeps do not take: bf16 at 160, 192 and 224); ValueError
-    naming the refusals otherwise."""
+    tensor-core sweeps do not take: 32 and 64, which no layer runs wide);
+    ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
                         ("bilstm_bwd_lite_f32", lite_f32_check),
@@ -1233,8 +1235,9 @@ def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
 def fwd_wide_f32_check(H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or width the f32 tensor-core wide forward
     (``csrc/bilstm_fwd_wide_f32.cu``, three tf32 passes) does not take: it
-    takes float32 at H in ``FWD_WIDE_F32_WIDTHS``, 128, 256 and 288, the
-    widths of the bf16 one and of the f32 lite sweep."""
+    takes float32 at H in ``FWD_WIDE_F32_WIDTHS``, 128-288, the widths of
+    the f32 lite sweep (its instances for 2 / 3, 3 and 3 / 4 unit groups a
+    block at 160, 192 and 224)."""
     if dtype != torch.float32 or H not in FWD_WIDE_F32_WIDTHS:
         raise ValueError(
             f"bilstm_fwd_wide_f32 kernel takes float32 with H in {list(FWD_WIDE_F32_WIDTHS)}, "
@@ -1265,11 +1268,11 @@ def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
     (bf16, H = 128, 256 or 288), ``"bilstm_fwd_wide_f32"`` where
-    ``fwd_wide_f32_check`` passes (f32 at those widths),
+    ``fwd_wide_f32_check`` passes (f32 at 128-288),
     ``"bilstm_fwd_wide_mma_resident"`` where ``fwd_wide_mma_resident_plan``
     takes it (bf16 at 96), else ``"bilstm_fwd_wide"`` where ``wide_check``
-    passes (the widths the tensor-core forwards do not take: f32 at 96, 160,
-    192, 224 in either dtype); ValueError naming the refusals otherwise."""
+    passes (the widths the tensor-core forwards do not take: f32 at 96, bf16
+    at 160, 192 and 224); ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
                         ("bilstm_fwd_wide_f32", fwd_wide_f32_check),
@@ -1286,6 +1289,37 @@ def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     except ValueError as cores:
         raise ValueError("; ".join([str(cores)] + refusals)) from None
     return "bilstm_fwd_wide"
+
+
+# the widths where the CUDA-core wide forward and lite sweep lost to a
+# tensor-core kernel timed in turns: refused by name too (``kernel=``); the
+# other widths up to WIDE_SMALL_THREADS stay by name, to time them beside
+# the kernels that took them (the forward f32 at 160-224 and bf16 at 128
+# and 256, the sweep bf16 at 128 and 160-256)
+CUDA_CORE_WIDE_RETIRED = {
+    "bilstm_fwd_wide": {torch.float32: (128, 256), torch.bfloat16: (96,)},
+    "bilstm_bwd_lite": {torch.float32: (96, 128, 160, 192, 224, 256), torch.bfloat16: (96,)},
+}
+
+
+def cuda_core_wide_check(name: str, H: int, dtype: torch.dtype) -> None:
+    """ValueError where the CUDA-core ``csrc/<name>.cu`` (``name``
+    "bilstm_fwd_wide" or "bilstm_bwd_lite") asked for by name is refused: past
+    ``WIDE_SMALL_THREADS`` units and at the widths of
+    ``CUDA_CORE_WIDE_RETIRED``."""
+    retired = CUDA_CORE_WIDE_RETIRED[name]
+    if H > WIDE_SMALL_THREADS or H in retired.get(dtype, ()):
+        raise ValueError(f"{name}: csrc/{name}.cu takes H <= {WIDE_SMALL_THREADS}, and f32 "
+                         f"outside {list(retired[torch.float32])} and bf16 outside "
+                         f"{list(retired[torch.bfloat16])}, got {dtype}, H={H}")
+
+
+def fwd_wide_f32_rows(H: int) -> Tuple[int, ...]:
+    """The row tiles the f32 tensor-core wide forward is built for at H:
+    ``FWD_WIDE_F32_ROWS`` where every unit group of a block gets two of its
+    8 warps or more (at most 4 groups a block, H <= 256),
+    ``FWD_WIDE_F32_ROWS_288`` at 288."""
+    return FWD_WIDE_F32_ROWS if -(-H // 64) <= 4 else FWD_WIDE_F32_ROWS_288
 
 
 def _lite_mma_part_stride(rows: int) -> int:
@@ -1309,10 +1343,11 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     ceil(H / 64) groups). ``kind`` "rec_fwd_mma" and
     "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
     (``recurrence_wide_mma_smem``); "rec_bwd_f32": its f32 tensor-core
-    sweep and forward past 288 (``recurrence_wide_f32_smem``). At H = 288
-    "lite_mma" is the instance for uneven groups: every per-block width
-    sized for the block of ceil(H / 64) groups, and ONE partial buffer;
-    "lite_mma_uneven" is that instance at any width (at 256, by name only).
+    sweep and forward past 288 (``recurrence_wide_f32_smem``). At H = 160,
+    192, 224 and 288 "lite_mma" is the kernel for uneven groups: every
+    per-block width sized for the block of ceil(H / 64) groups, and ONE
+    partial buffer; "lite_mma_uneven" is that kernel at any width (at 256,
+    by name only).
     ``kind`` "lite_f32" (the f32 tensor-core sweep, ``csrc/bilstm_bwd_lite_f32.cu``):
     the op sweep's f32 h_prev tile, dgates tile and one partial buffer, its
     weights read from L2 (the formula of ``recurrence_wide_f32_smem``).
@@ -1322,7 +1357,7 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     weights are read from L2."""
     if kind == "fwd_f32":
         fwd_wide_f32_check(H, torch.float32)
-        if rows not in (FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS):
+        if rows not in fwd_wide_f32_rows(H):
             raise ValueError(f"bilstm_fwd_wide_f32: no instance for a row tile of {rows} "
                              f"at H={H}")
         return (2 * rows * (H + REC_WIDE_F32_PAD) * 4
@@ -1369,13 +1404,12 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     card in the fewest waves, and among those the smallest tile; ``rows``
     is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
-    ``LITE_MMA_UNEVEN_ROWS`` there at H = 288 and for "lite_mma_uneven",
+    ``LITE_MMA_UNEVEN_ROWS`` there at H % 128 != 0 and for "lite_mma_uneven",
     ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
     H = 288), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
     "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32",
     ``REC_WIDE_F32_FWD_ROWS`` at H for "rec_fwd_f32", ``LITE_F32_ROWS`` for
-    "lite_f32", ``FWD_WIDE_F32_ROWS`` for "fwd_f32" (``FWD_WIDE_F32_UNEVEN_ROWS``
-    at H = 288))
+    "lite_f32", ``fwd_wide_f32_rows(H)`` for "fwd_f32")
     for the tensor-core ones.
     ``max_clusters(rows, smem)`` is how many clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
@@ -1391,7 +1425,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     if kind == "lite_f32":
         rows = LITE_F32_ROWS
     if kind == "fwd_f32":
-        rows = FWD_WIDE_F32_ROWS if H % 64 == 0 else FWD_WIDE_F32_UNEVEN_ROWS
+        rows = fwd_wide_f32_rows(H)
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
@@ -2369,11 +2403,7 @@ def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
     name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
     if name in tensor_core:
         return tensor_core[name](xg, lengths, w_hh, cd)
-    H = xg.shape[-1] // 4
-    if H > WIDE_SMALL_THREADS or (cd == torch.float32 and H in FWD_WIDE_F32_WIDTHS):
-        raise ValueError(f"bilstm_fwd_wide: csrc/bilstm_fwd_wide.cu takes H <= "
-                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(FWD_WIDE_F32_WIDTHS)}, "
-                         f"got {cd}, H={H}")
+    cuda_core_wide_check("bilstm_fwd_wide", xg.shape[-1] // 4, cd)
     _no_graph(xg, w_hh)
     return _fwd_wide_launch(wrapper, "bilstm_fwd_wide", xg, lengths, w_hh, cd, with_states)
 
@@ -2396,12 +2426,12 @@ def bilstm_fwd_wide(
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
     its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
-    (bf16 at H = 128, 256 and 288), :func:`bilstm_fwd_wide_f32` (f32 there)
-    or :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their ``.launches``
-    then count them), or ``csrc/bilstm_fwd_wide.cu`` here.
-    ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16 at 96,
-    128 and 256 (to time it beside the others); it takes no width past 256
-    and no f32 width of the f32 tensor-core forward.
+    (bf16 at H = 128, 256 and 288), :func:`bilstm_fwd_wide_f32` (f32 at
+    128-288) or :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their
+    ``.launches`` then count them), or ``csrc/bilstm_fwd_wide.cu`` here.
+    ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16 at 128
+    and 256 and in f32 at 160, 192 and 224 (to time it beside the others);
+    it takes no width past 256, not bf16 at 96 and not f32 at 128 or 256.
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
@@ -2620,14 +2650,14 @@ def bilstm_bwd_lite(
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
     width and dtype: a tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128, 256 and 288), :func:`bilstm_bwd_lite_f32` (f32 there),
+    (bf16 at H = 128-288), :func:`bilstm_bwd_lite_f32` (f32 there),
     :func:`bilstm_bwd_lite_f32_resident` (f32 at 96) or
     :func:`bilstm_bwd_lite_mma_resident` (bf16 at 96; their ``.launches``
     then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
-    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128
-    and 256 and in f32 at 160, 192 and 224 (to time it beside the others);
-    it takes no width past 256, not bf16 at 96 and no f32 width the f32
-    tensor-core sweeps took before 160-224 (128, 256, 288 and 96)."""
+    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128,
+    160, 192, 224 and 256 (to time it beside the others); it takes no width
+    past 256, not bf16 at 96 and no f32 width a tensor-core sweep takes
+    (96-256)."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
     if not xg.is_cuda:
@@ -2643,12 +2673,7 @@ def bilstm_bwd_lite(
     if kernel in tensor_core:
         return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
                                    dcn, cd)
-    H = xg.shape[-1] // 4
-    retired = {torch.float32: (96, 128, 256), torch.bfloat16: LITE_MMA_RESIDENT_WIDTHS}
-    if H > WIDE_SMALL_THREADS or H in retired.get(cd, ()):
-        raise ValueError(f"bilstm_bwd_lite: csrc/bilstm_bwd_lite.cu takes H <= "
-                         f"{WIDE_SMALL_THREADS}, and f32 outside {list(retired[torch.float32])} "
-                         f"and bf16 outside {list(retired[torch.bfloat16])}, got {cd}, H={H}")
+    cuda_core_wide_check("bilstm_bwd_lite", xg.shape[-1] // 4, cd)
     dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
                                            cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
     dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -2691,12 +2716,13 @@ def bilstm_bwd_lite_mma(
     """One layer's backward sweep over its input gates on the tensor cores
     (``csrc/bilstm_bwd_lite_mma.cu``); the contract of
     :func:`bilstm_bwd_lite`. Takes the widths ``lite_mma_check`` takes
-    (bfloat16, H = 128, 256 and 288) and raises for the rest; the row tile is
+    (bfloat16, H in ``LITE_MMA_WIDTHS``) and raises for the rest; the row tile is
     ``wide_plan("lite_mma", ...)``'s. ``uneven=True`` asks at H = 256 for
-    the instance for uneven group splits (H = 288's, row tile
-    ``wide_plan("lite_mma_uneven", ...)``'s), to time the two in turns; no
-    dispatch asks for it. Its output carries no graph, so under grad mode
-    it refuses an operand that requires grad, on the CPU too."""
+    the second kernel (160-288's, which deals its (unit group, n8 tile)
+    items over its 8 warps; row tile ``wide_plan("lite_mma_uneven", ...)``'s),
+    to time the two in turns; no dispatch asks for it. Its output carries no
+    graph, so under grad mode it refuses an operand that requires grad, on
+    the CPU too."""
     if uneven and xg.is_cuda and xg.shape[-1] // 4 not in (256, 288):
         raise ValueError(f"bilstm_bwd_lite_mma: the uneven instance takes H = 256 and 288, "
                          f"got H={xg.shape[-1] // 4}")

@@ -107,8 +107,11 @@ def test_stack_matches_pallas_plan_f32(monkeypatch, route, G, H):
         np.testing.assert_allclose(g, w, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("route", ["wide", "resident"])
-def test_stack_matches_pallas_plan_bf16(monkeypatch, route):
+@pytest.mark.parametrize("route,G,H", [
+    pytest.param("wide", 2, 8, id="wide"), pytest.param("resident", 2, 8, id="resident"),
+    # the wide route at H = 160, where the bf16 lite sweep is bilstm_bwd_lite_mma.cu
+    pytest.param("wide", 1, 160, id="wide-1-H160")])
+def test_stack_matches_pallas_plan_bf16(monkeypatch, route, G, H):
     """bf16 streams (hs, cs, the rounded gate cotangents, dx) round at the
     same points in both; but the JAX stack off the packed plan sums an
     upper layer's dx over directions and parts in bf16 (``_stack_bwd``,
@@ -120,7 +123,7 @@ def test_stack_matches_pallas_plan_bf16(monkeypatch, route):
     ~1.5, to 2^-7 x max(1, max|ref|). Measured at seeds 11, 13, 17: loss
     gaps up to 9.6e-4 relative, weight gradients up to 2.5e-3, the input
     gradient up to 4.7e-3 (x max(1, max|ref|))."""
-    got_l, want_l, got, want = run_both(monkeypatch, route, "bfloat16", 2, seed=13)
+    got_l, want_l, got, want = run_both(monkeypatch, route, "bfloat16", G, seed=13, H=H)
     np.testing.assert_allclose(got_l, want_l, rtol=1e-3)
     for k, (g, w) in enumerate(zip(got, want)):
         tol = 2.0 ** -7 if k == 0 else 2.0 ** -8

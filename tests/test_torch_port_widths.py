@@ -109,8 +109,9 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
     layers of 257-288 units, embedding 272 among them), f32 at 128 to 288,
     which the f32 tensor-core sweep (three tf32 passes) takes, and 96 in
     either dtype, which the one-block sweeps with W_hh resident take (three
-    tf32 passes in f32, one bf16 pass in bf16); bf16 at 160, 192 and 224
-    keeps the CUDA-core one."""
+    tf32 passes in f32, one bf16 pass in bf16), and bf16 at 160, 192 and
+    224, which the tensor-core sweep's second kernel (the one of 288, its
+    items dealt over 8 warps) takes."""
     wide = set()
     for H in range(1, 289):
         for what, (B, G, parts) in SHAPES.items():
@@ -125,7 +126,7 @@ def test_lite_kernels_by_width_are_the_parents_but_bf16_at_288(dtype):
             wide.add(Hp)
             bf16 = dtype == torch.bfloat16
             parent = "bilstm_bwd_lite_mma" if bf16 and Hp in (128, 256) else "bilstm_bwd_lite"
-            want = "bilstm_bwd_lite_mma" if bf16 and Hp == 288 else parent
+            want = "bilstm_bwd_lite_mma" if bf16 and Hp in (160, 192, 224, 288) else parent
             if not bf16 and Hp in (128, 160, 192, 224, 256, 288):
                 want = "bilstm_bwd_lite_f32"
             if Hp == 96:
@@ -378,25 +379,42 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
                    if p[0] == "wide")
 
 
+# Kernel slices that each took some widths from older kernels: the
+# constants that set a slice back, and by dtype the only kernel changes it
+# made, {(old, new): the padded widths Hp where the wide route changed}.
+# First the f32 lite sweep at 160-224 with the one-block bf16 wide forward
+# at 96, then the bf16 lite sweep with the f32 wide forward at 160-224.
+WIDE_SLICES = {
+    "f32_lite_160_224_bf16_fwd_96": (
+        {"LITE_F32_WIDTHS": (128, 256, 288), "FWD_WIDE_MMA_RESIDENT_WIDTHS": ()},
+        {torch.float32: {("bilstm_bwd_lite", "bilstm_bwd_lite_f32"): {160, 192, 224}},
+         torch.bfloat16: {("bilstm_fwd_wide", "bilstm_fwd_wide_mma_resident"): {96}}}),
+    "bf16_lite_f32_fwd_160_224": (
+        {"LITE_MMA_WIDTHS": (128, 256, 288), "FWD_WIDE_F32_WIDTHS": (128, 256, 288)},
+        {torch.float32: {("bilstm_fwd_wide", "bilstm_fwd_wide_f32"): {160, 192, 224}},
+         torch.bfloat16: {("bilstm_bwd_lite", "bilstm_bwd_lite_mma"): {160, 192, 224}}}),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_the_f32_lite_sweep_at_160_to_224_and_bf16_wide_forward_at_96_change_no_other_plan(
-        dtype, monkeypatch):
-    """Over the grid above, every layer keeps the route and padded shape it
-    had before the f32 tensor-core lite sweep took Hp = 160, 192 and 224 and
-    the one-block bf16 wide forward took Hp = 96 (the plans with those two
-    set back: ``LITE_F32_WIDTHS`` = (128, 256, 288),
-    ``FWD_WIDE_MMA_RESIDENT_WIDTHS`` = ()), and the same kernel at every
-    step, except two: in f32 the lite sweep at Hp = 160, 192 and 224 (layer
-    0 of 145-224 units and the stacked layers run there) is
-    ``bilstm_bwd_lite_f32`` where it was ``bilstm_bwd_lite``, and in bf16
-    the wide forward at Hp = 96 (the stacked layers of 65-96 units and layer
-    0 of 81-96) ``bilstm_fwd_wide_mma_resident`` where it was
-    ``bilstm_fwd_wide``. bf16 keeps ``bilstm_bwd_lite.cu`` at 160-224 and
-    f32 ``bilstm_fwd_wide.cu`` at 96-224."""
+@pytest.mark.parametrize("kernel_slice", list(WIDE_SLICES))
+def test_each_wide_kernel_slice_changes_no_other_plan(kernel_slice, dtype, monkeypatch):
+    """Over the grid above, with one slice of ``WIDE_SLICES`` set back,
+    every layer keeps its route and padded shape, and the same kernel at
+    every step except those the slice names: f32 ``bilstm_bwd_lite`` →
+    ``bilstm_bwd_lite_f32`` and bf16 ``bilstm_fwd_wide`` →
+    ``bilstm_fwd_wide_mma_resident`` (the stacked layers of 65-96 units and
+    layer 0 of 81-96 at Hp = 96), or f32 ``bilstm_fwd_wide`` →
+    ``bilstm_fwd_wide_f32`` and bf16 ``bilstm_bwd_lite`` →
+    ``bilstm_bwd_lite_mma`` at Hp = 160, 192 and 224 (layer 0 of 145-224
+    units and the stacked layers run there). Today no wide layer takes
+    ``bilstm_bwd_lite.cu``, and f32 keeps ``bilstm_fwd_wide.cu`` at 96 and
+    bf16 at 160-224 only."""
+    constants, changes = WIDE_SLICES[kernel_slice]
     try:
         with monkeypatch.context() as m:
-            m.setattr(lstm_cuda, "LITE_F32_WIDTHS", (128, 256, 288))
-            m.setattr(lstm_cuda, "FWD_WIDE_MMA_RESIDENT_WIDTHS", ())
+            for name, value in constants.items():
+                m.setattr(lstm_cuda, name, value)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -410,22 +428,22 @@ def test_the_f32_lite_sweep_at_160_to_224_and_bf16_wide_forward_at_96_change_no_
         assert (route, Hp, Ep) == before[key][:3], key
         diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
         if diff:
-            changed.setdefault(diff.pop(), set()).add((route, Hp))
+            assert route == "wide", key
+            changed.setdefault(diff.pop(), set()).add(Hp)
             assert not diff, key
-    wide = {Hp for route, Hp, _, _ in after.values() if route == "wide"}
+    assert changed == changes[dtype]
+    wide = [p for p in after.values() if p[0] == "wide"]
+    assert {96, 160, 192, 224} <= {p[1] for p in wide}
+    assert not any(p[3][2] == "bilstm_bwd_lite" for p in wide)
+    assert {p[1] for p in wide if p[3][1] == "bilstm_fwd_wide"} == (
+        {96} if dtype == torch.float32 else {160, 192, 224})
     if dtype == torch.float32:
-        assert changed == {("bilstm_bwd_lite", "bilstm_bwd_lite_f32"): {
-            ("wide", 160), ("wide", 192), ("wide", 224)}}
-        assert {p[3][1] for p in after.values() if p[0] == "wide"} == {
-            "bilstm_fwd_wide", "bilstm_fwd_wide_f32"}
-        assert after["train layer 0", 160][3][2] == "bilstm_bwd_lite_f32"
+        assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide_f32",
+                                                      "bilstm_bwd_lite_f32")
     else:
-        assert changed == {("bilstm_fwd_wide", "bilstm_fwd_wide_mma_resident"): {("wide", 96)}}
-        assert {p[1] for p in after.values()
-                if p[0] == "wide" and p[3][2] == "bilstm_bwd_lite"} == {160, 192, 224}
+        assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide", "bilstm_bwd_lite_mma")
         for width in (80, 72):
             assert after["train stacked", width][3][1] == "bilstm_fwd_wide_mma_resident"
-    assert {96, 160, 192, 224} <= wide
 
 
 @pytest.mark.parametrize("E_parts,H,dtype,Hp,route", [
