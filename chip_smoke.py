@@ -114,7 +114,7 @@ exits non-zero with no result):
    bf16 two-layer model at embedding 72 at the train shape (2 steps and an
    eval step, timed: layer 0 on ``bilstm_fwd_mma`` and ``bilstm_bwd_mma``,
    the stacked layer on ``bilstm_bwd_lite_mma_resident``, never
-   ``bilstm_fwd.cu``, ``bilstm_bwd.cu`` or ``bilstm_bwd_lite.cu``); the
+   ``bilstm_fwd.cu`` or ``bilstm_bwd.cu``); the
    wide forward (both variants: in bf16 the one-block
    ``bilstm_fwd_wide_mma_resident``, in f32 the CUDA-core
    ``bilstm_fwd_wide.cu``) and lite sweep (the one-block ones) at the
@@ -127,11 +127,11 @@ exits non-zero with no result):
    timed, the forward also at each of its row tiles; the two-layer
    models at embedding 160 at the train shape in f32 and bf16 (2 steps and
    an eval step each, timed) and layer 0 at E = H = 160, 192, 224: in f32
-   ``bilstm_fwd_wide_f32`` (both variants, in turns with
-   ``bilstm_fwd_wide.cu`` by name, each row tile in turns with the
-   dispatch) and ``bilstm_bwd_lite_f32``, in bf16 ``bilstm_fwd_wide.cu``
-   and ``bilstm_bwd_lite_mma`` (in turns with ``bilstm_bwd_lite.cu`` by
-   name), beside their bounds and cuDNN; then a
+   ``bilstm_fwd_wide_f32`` (both variants, each row tile in turns with
+   the dispatch) and ``bilstm_bwd_lite_f32``, in bf16
+   ``bilstm_fwd_wide(_train)_mma`` (its kernel for uneven unit groups, each
+   row tile, with its registers, spills and blocks an SM) and
+   ``bilstm_bwd_lite_mma``, beside their bounds and cuDNN; then a
    gradient step and
    an eval step on the card against the CPU at small size (8 pairs,
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
@@ -139,8 +139,8 @@ exits non-zero with no result):
    tensor-core forward's and sweep's <72, 72> instances, (bf16) 16, whose
    stacked layer is ``bilstm_bwd.cu``'s, (bf16) 56, whose layers are
    ``bilstm_fwd.cu``'s, and 160, whose layers run the f32 tensor-core
-   forward and lite sweep in f32, ``bilstm_fwd_wide.cu`` and the bf16
-   tensor-core lite sweep in bf16 (never ``bilstm_bwd_lite.cu``), and of
+   forward and lite sweep in f32, the bf16 tensor-core forward, lite
+   sweep and split wgrad in bf16 (never ``bilstm_fwd_wide.cu``), and of
    the recurrence backend at embedding 80
    (run at 96), each with the kernels it must launch (and, where given,
    must not);
@@ -155,7 +155,7 @@ exits non-zero with no result):
    ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 (three
    tf32 passes) ``bilstm_gates_f32``, ``bilstm_fwd_wide(_train)_f32``,
    ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``, and the CUDA-core
-   forward and lite sweep, asked for by name, are held too in bf16; the
+   forward, asked for by name, is held too in bf16; the
    input gates computed twice must agree bit for bit (the backward
    recomputes them), and so must the tensor-core forwards' hs in their two
    variants; ragged cases of the tensor-core kernels (27 rows in 3 groups
@@ -164,14 +164,19 @@ exits non-zero with no result):
    in both dtypes); then each timed with CUDA events at full lengths beside
    its plain version and a PyTorch yardstick in the same dtype (cuBLAS
    ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; wgrad
-   new, old, old, new in both dtypes, the bf16 forward (both variants) and
-   sweep too, and in bf16 the forward and the sweep at each of their row
-   tiles;
+   new, old, old, new in both dtypes, the bf16 forward (both variants)
+   too, and in bf16 the forward and the sweep at each of their row tiles;
+   and the bf16 wide route's split weight gradient (``dW_ih`` on cuBLAS,
+   ``dW_hh`` on ``bilstm_wgrad_mma`` with no input part) against its twin
+   at the train shape on the wide layers at 96, 160, 256 and 288, timed in
+   turns with the whole kernel (split, whole, whole, split) beside its two
+   parts alone, cuBLAS and the bounds (``wgrad_split``);
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
    ``bilstm_gates_mma``, ``bilstm_fwd_wide(_train)_mma``,
-   ``bilstm_bwd_lite_mma`` and ``bilstm_wgrad_mma`` and never through the
+   ``bilstm_bwd_lite_mma``, ``bilstm_wgrad_mma`` and the ``dW_ih`` products
+   (``bilstm_wgrad_ih``) and never through the
    resident kernels or the CUDA-core gates, forward, sweep and wgrad, a
    profiled step and peak memory; then one step's gradients at embedding
    256 and 3 layers held against the CPU plain path in f32, with an eval
@@ -241,10 +246,11 @@ exits non-zero with no result):
     tensor-core forward at H = 64 as an entry of its own;
     ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
     ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
-    72 beside it); the CUDA-core wide forward's main path f32 at 96 (bf16
-    at 160-224 and f32 there by name beside it); the CUDA-core lite sweep
-    runs on no path, its times by name at 160-224 stand in the bf16
-    tensor-core lite sweep's entry (``hN_cuda_core_ms``); the bf16 op
+    72 beside it); the CUDA-core wide forward's main path f32 at 96; the
+    bf16 tensor-core forward at 160-224 as ``hN_*`` fields of its entries;
+    the split bf16 weight gradient (``dW_hh`` on ``bilstm_wgrad_mma``,
+    ``dW_ih`` on cuBLAS) as ``split_hN_*`` fields of ``bilstm_wgrad_mma``'s
+    entry (phase wide_kernel's ``wgrad_split``); the bf16 op
     past 288, the f32 forward and sweep past 288, the f32 tensor-core lite
     sweep, the one-block lite sweeps at 96 and the f32 tensor-core gates
     and wide forward as entries of their own, the last with ``hN_*`` fields
@@ -1056,7 +1062,10 @@ def ragged_80_96_check(dev) -> list:
                 ("bilstm_fwd_wide_f32", 224, [224], torch.float32),
                 ("bilstm_bwd_lite_mma", 160, [160], torch.bfloat16),
                 ("bilstm_bwd_lite_mma", 192, [96, 96], torch.bfloat16),
-                ("bilstm_bwd_lite_mma", 224, [224], torch.bfloat16)):
+                ("bilstm_bwd_lite_mma", 224, [224], torch.bfloat16),
+                ("bilstm_fwd_wide_mma", 160, [160], torch.bfloat16),
+                ("bilstm_fwd_wide_mma", 192, [96, 96], torch.bfloat16),
+                ("bilstm_fwd_wide_mma", 224, [224], torch.bfloat16)):
             parts = tuple(u(T, B, e).to(cd) for e in E_parts)
             w_ih = u(2, 4 * H, sum(E_parts), scale=H ** -0.5).to(cd)
             w_hh = u(2, G, 4 * H, H, scale=H ** -0.5).to(cd)
@@ -1438,7 +1447,7 @@ def train_counters():
             "bilstm_layer_fwd_train_f32": L.bilstm_layer_fwd_train_f32,
             "bilstm_gates_mma": L.bilstm_gates_mma,
             "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
-            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_bwd_lite": L.bilstm_bwd_lite,
+            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_wgrad_ih": L.bilstm_wgrad_ih,
             "bilstm_bwd_lite_mma": L.bilstm_bwd_lite_mma,
             "bilstm_fwd_wide_train_mma": L.bilstm_fwd_wide_train_mma,
             "bilstm_fwd_wide_mma": L.bilstm_fwd_wide_mma,
@@ -1529,7 +1538,8 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # f32 the CUDA-core bilstm_fwd_wide.cu, in bf16 the one-block
     # bilstm_fwd_wide_mma_resident.cu, never bilstm_fwd_wide.cu), and the
     # one-block lite sweep, in f32 the 3xTF32 bilstm_bwd_lite_f32_resident.cu
-    # and in bf16 bilstm_bwd_lite_mma_resident.cu, never bilstm_bwd_lite.cu
+    # and in bf16 bilstm_bwd_lite_mma_resident.cu (and in bf16 the stacked
+    # layer's dW_ih products on cuBLAS)
     e80_expect = {
         torch.float32: ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                         "bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_fwd_wide_train",
@@ -1538,9 +1548,9 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
         torch.bfloat16: ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                          "bilstm_gates_mma", "bilstm_fwd_wide_train_mma_resident",
                          "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident",
-                         "bilstm_wgrad_mma")}
+                         "bilstm_wgrad_mma", "bilstm_wgrad_ih")}
     e80_never = {
-        torch.float32: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite",
+        torch.float32: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad_ih",
                         "bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
                         "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
                         "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32",
@@ -1549,7 +1559,7 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
         torch.bfloat16: ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
                          "bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates_f32",
                          "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_train",
-                         "bilstm_layer_fwd", "bilstm_bwd_lite", "bilstm_bwd_lite_mma",
+                         "bilstm_layer_fwd", "bilstm_bwd_lite_mma",
                          "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train",
                          "bilstm_fwd_wide")}
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
@@ -1718,34 +1728,29 @@ PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 1
                  (("stacked", 112), [112, 112], 112, 1), (("layer 0", 50), [50], 50, G_TRAIN),
                  (("layer 0", 100), [100], 100, G_TRAIN), (("stacked", 100), [100, 100], 100, 1),
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
-# the wide route's kernels at 128, 256 and 288, by dtype (the tensor-core
-# ones; in f32 three tf32 passes a product); at 96 both dtypes keep the
-# CUDA-core forward, and bf16 the CUDA-core sweep; the CUDA-core forward and
-# sweep no wide layer at these widths may launch
+# the wide route's kernels at 128-288, by dtype (the tensor-core ones; in
+# f32 three tf32 passes a product; in bf16 dW_ih on cuBLAS beside
+# bilstm_wgrad_mma's dW_hh); the CUDA-core forward and the whole-kernel
+# wgrad dispatch no wide layer at these widths may launch
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
-             "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
+             "bilstm_bwd_lite_mma", "bilstm_wgrad_mma", "bilstm_wgrad_ih")
 WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
             "bilstm_bwd_lite_f32", "bilstm_wgrad_f32")
-WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite", "bilstm_wgrad")
-WIDE_288_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
-                 "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
-# bf16 at 160-224: the CUDA-core forward, the tensor-core lite sweep
-WIDE_160_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                 "bilstm_bwd_lite_mma", "bilstm_wgrad_mma")
+WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_wgrad")
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch (at 72 in
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
 # and sweep's <72, 72> instances, the stacked layer (run at 96) that of the
 # one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu,
-# bilstm_fwd.cu, bilstm_fwd_wide.cu and bilstm_bwd_lite.cu must not launch;
+# bilstm_fwd.cu and bilstm_fwd_wide.cu must not launch;
 # at 16 in bf16 the stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's:
 # K = 48, which the tensor-core sweep does not take; at 56 in bf16 both
 # layers, E = 56 and 56 + 56, are bilstm_fwd.cu's, which the tensor-core
 # forward has no instance for; at 160 both layers run on the wide route at
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
-# (bilstm_fwd_wide.cu and bilstm_bwd_lite.cu must not launch), in bf16
-# bilstm_fwd_wide.cu's and the bf16 tensor-core lite sweep's
-# (bilstm_bwd_lite.cu must not launch)) and, where given, must not
+# (bilstm_fwd_wide.cu and the dW_ih products must not launch), in bf16 the
+# bf16 tensor-core forward's and lite sweep's and the split wgrad's
+# (bilstm_fwd_wide.cu must not launch)) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1758,12 +1763,12 @@ WIDTH_STEPS = (
                                    "bilstm_bwd_mma", "bilstm_wgrad_mma")),
     ("layer", 100, torch.float32, WIDE_F32),
     ("layer", 100, torch.bfloat16, WIDE_BF16),
-    ("layer", 272, torch.bfloat16, WIDE_288_BF16),
+    ("layer", 272, torch.bfloat16, WIDE_BF16),
     ("layer", 72, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
                                    "bilstm_bwd_mma", "bilstm_wgrad_mma",
                                    "bilstm_fwd_wide_train_mma_resident",
                                    "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident"),
-     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_lite",
+     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd",
       "bilstm_fwd_wide_train", "bilstm_fwd_wide")),
     ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
                                    "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma")),
@@ -1771,14 +1776,12 @@ WIDTH_STEPS = (
                                    "bilstm_wgrad_mma"),
      ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd")),
     ("layer", 160, torch.float32, WIDE_F32,
-     ("bilstm_bwd_lite", "bilstm_fwd_wide", "bilstm_fwd_wide_train")),
-    ("layer", 160, torch.bfloat16, WIDE_160_BF16,
-     ("bilstm_bwd_lite", "bilstm_bwd_lite_f32", "bilstm_fwd_wide_mma",
-      "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma_resident")),
+     ("bilstm_wgrad_ih", "bilstm_fwd_wide", "bilstm_fwd_wide_train")),
+    ("layer", 160, torch.bfloat16, WIDE_BF16,
+     ("bilstm_fwd_wide", "bilstm_fwd_wide_train", "bilstm_bwd_lite_f32", "bilstm_wgrad_f32",
+      "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
-    ("layer", 112, torch.bfloat16, ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma",
-                                    "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
-                                    "bilstm_wgrad_mma")),
+    ("layer", 112, torch.bfloat16, WIDE_BF16),
     ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                                        "lstm_recurrence_wgrad")),
     ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
@@ -1868,8 +1871,7 @@ def padded_layer_timings(dev) -> list:
 
 def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=288,
                            seed=SEED + 50, fwd_want="bilstm_fwd_wide_mma",
-                           lite_want="bilstm_bwd_lite_mma", cd=torch.bfloat16,
-                           lite_by_name=False, fwd_by_name=False) -> dict:
+                           lite_want="bilstm_bwd_lite_mma", cd=torch.bfloat16) -> dict:
     """The wide forward (both variants) and lite sweep the dispatch names on
     a main path, in ``cd``: by default layer 0 of the bf16 two-layer model
     at embedding 272 (E = 272, run at H = 288, 5 weight groups, two dy
@@ -1882,16 +1884,14 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     with E = H = 160-224 layer 0 at those embeddings (in f32
     ``bilstm_fwd_wide_f32.cu``, also at each of its row tiles in turns with
     the dispatch, and ``bilstm_bwd_lite_f32.cu``, in bf16
-    ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_mma.cu``); 400 rows, T = 1500,
+    ``bilstm_fwd_wide_mma.cu``'s kernel for uneven unit groups and
+    ``bilstm_bwd_lite_mma.cu``); 400 rows, T = 1500,
     the input gates from the tensor-core gates kernel. The forward and the
     sweep the dispatch names must be ``fwd_want`` and ``lite_want``. Each
     held against its plain twin with the main path's lengths (the tolerance
     ``TOL``; a tensor-core forward's two variants must give the same hs
-    bits, and the same bits twice; the sweep the same bits twice; with
-    ``lite_by_name`` ``bilstm_bwd_lite.cu`` by name on the same operands too,
-    then timed in turns with the sweep: ``cuda_core_ms``, its bound at 67
-    TFLOP/s ``cuda_core_bound_ms``; with ``fwd_by_name`` the same for
-    ``bilstm_fwd_wide.cu`` and the forward, both variants), then timed at
+    bits, and the same bits twice; the sweep the same bits twice), then
+    timed at
     full lengths beside the twin (timed once, in the check), its bound at
     its rate (``kernel_peak``) at the padded H (the kernel's own work) and at
     the true H, and cuDNN's one-layer training forward (``cudnn_fwd_again_ms``
@@ -1918,7 +1918,6 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
              "dtype": str(cd).replace("torch.", ""), "tol": f"{TOL[cd]} x max(1, max|ref|)"}
     out = {k + sfx: {"kernel": name, **shape} for k, name in (
         ("fwd", f"{fwd_want} (train)"), ("fwd_eval", f"{fwd_want} (eval)"), ("lite", lite_want))}
-    by_name = {"fwd": fwd_by_name, "fwd_eval": fwd_by_name, "lite": lite_by_name}
     for full in (False, True):
         parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
             E_parts, Hp, G, cd, dev, seed, full_lengths=full, ny=ny)
@@ -1928,20 +1927,9 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["lite"] = lambda: L.bilstm_bwd_lite(*args)
-        # the CUDA-core kernels asked for by name on the same operands
-        old = {"fwd": lambda: L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
-                                                      kernel="bilstm_fwd_wide"),
-               "fwd_eval": lambda: L.bilstm_fwd_wide(xg, lengths, w_hh, cd,
-                                                     kernel="bilstm_fwd_wide"),
-               "lite": lambda: L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")}
         if full:
             for k, call in calls.items():
-                if by_name[k]:
-                    # new, old, old, new: both kernels in one run, on one card
-                    (out[k + sfx]["ms"], out[k + sfx]["ms_again"],
-                     out[k + sfx]["cuda_core_ms"]) = in_turns(call, old[k], 3)
-                else:
-                    out[k + sfx]["ms"] = time_ms(call, 3)
+                out[k + sfx]["ms"] = time_ms(call, 3)
             if mma:
                 for k, kind, lib in (("fwd", "fwd_mma", "bilstm_fwd_wide_mma"),
                                      ("lite", "lite_mma", "bilstm_bwd_lite_mma")):
@@ -1984,8 +1972,6 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
             res = {"lite": {"dgates": rel_err(got, ref, TOL[cd]),
                             "twice": (0.0, bool(torch.equal(calls["lite"](), got)))}}
             out["lite" + sfx]["scaled_err"] = scaled_err(got, ref)
-            if lite_by_name:
-                res["lite"]["cuda_core_dgates"] = rel_err(old["lite"](), ref, TOL[cd])
             del got
             train, ev = calls["fwd"](), calls["fwd_eval"]()
             res["fwd"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, train, want)}
@@ -1998,10 +1984,6 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                                                 for a, b in zip(calls[k](), first)))
                     out[k + sfx]["scaled_err"] = max(scaled_err(a, b)
                                                      for a, b in zip(first, want))
-            if fwd_by_name:
-                for k in ("fwd", "fwd_eval"):
-                    res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd])
-                                   for n, a, b in zip(names, old[k](), want)})
             if fwd_f32:
                 for R in L.fwd_wide_f32_rows(Hp):
                     res["fwd"].update({f"rows{R}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
@@ -2016,7 +1998,7 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                     raise AssertionError(f"{out[k + sfx]['kernel']} disagrees with its twin: "
                                          f"{out[k + sfx]}")
             del want, ref, res
-        del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls, old
+        del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls
     size = torch.empty((), dtype=cd).element_size()
     for key, Hw in (("", Hp), ("true_", H)):
         work = wide_layer_work(E, Hw, G, size, ny)
@@ -2024,11 +2006,6 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
             kernel = lite_want if k.startswith("lite") else fwd_want
             out[k][f"{key}bound_ms"], out[k][f"{key}bound_by"] = bound(
                 [(*work[k.replace("_mma", "")], kernel_peak(cd, kernel))])
-    work = wide_layer_work(E, Hp, G, size, ny)
-    for k in out:
-        if by_name[k.replace("_mma", "")]:
-            out[k]["cuda_core_bound_ms"], _ = bound(
-                [(*work[k.replace("_mma", "")], PEAK_F32_FLOPS)])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k in out:
         out[k]["library_ms"] = lib[{"fwd": "cudnn_fwd_ms", "fwd_eval": "cudnn_inference_ms",
@@ -2251,8 +2228,7 @@ def lite_f32_96(dev) -> dict:
     max(1, max|ref|); the same bits twice), then timed at T = 1500, full
     lengths, beside the bounds at 495/3 TFLOP/s (three tf32 passes) at the
     padded and the true widths, the twin (timed once) and cuDNN's one-layer
-    f32 backward for the input at the true widths, TF32 off.
-    ``bilstm_bwd_lite.cu`` is no longer asked for by name there."""
+    f32 backward for the input at the true widths, TF32 off."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep_lite
 
@@ -2398,16 +2374,17 @@ def phase_widths(dev) -> dict:
     72 at the train shape (2 steps and an eval step, timed); the two-layer
     models at embedding 160 at the train shape (2 steps and an eval step
     each, timed: in f32 the f32 tensor-core forward and lite sweep at 160
-    in both layers, in bf16 ``bilstm_fwd_wide.cu`` and the bf16 tensor-core
-    lite sweep);
+    in both layers, in bf16 the bf16 tensor-core forward and lite sweep and
+    the split wgrad);
     ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, the bf16
     tensor-core forward and lite sweep), at embedding 80's stacked layer
     (H = 96: in bf16 the one-block forward and lite sweep; in f32 the CUDA-core
     forward and the one-block lite sweep) and at layer 0 at E = H = 160,
-    192, 224 (in f32 the f32 tensor-core forward, in turns with
-    ``bilstm_fwd_wide.cu`` by name, and lite sweep; in bf16
-    ``bilstm_fwd_wide.cu``, its main path, and the bf16 tensor-core lite
-    sweep, in turns with ``bilstm_bwd_lite.cu`` by name);
+    192, 224 (in f32 the f32 tensor-core forward and lite sweep; in bf16
+    the bf16 tensor-core forward's kernel for uneven unit groups and lite
+    sweep; the forward's
+    registers and spills from the build and its blocks an SM,
+    ``fwd_mma_uneven``);
     then for each of ``WIDTH_STEPS`` one gradient
     step and an eval step of the two-layer model (8 pairs, T = 64, dropout
     0) on the card against the CPU plain path, in f32 and bf16, the listed
@@ -2424,12 +2401,12 @@ def phase_widths(dev) -> dict:
     for key, dtype, width, expect in (("embedding_100_float32", torch.float32, 100, WIDE_F32),
                                       ("embedding_100_bfloat16", torch.bfloat16, 100, WIDE_BF16),
                                       ("embedding_272_bfloat16", torch.bfloat16, 272,
-                                       WIDE_288_BF16),
+                                       WIDE_BF16),
                                       ("embedding_272_float32", torch.float32, 272, WIDE_F32),
                                       ("embedding_160_float32", torch.float32, 160, WIDE_F32),
                                       ("embedding_160_bfloat16", torch.bfloat16, 160,
-                                       WIDE_160_BF16)):
-        others = set(WIDE_BF16 + WIDE_F32 + WIDE_288_BF16 + WIDE_CUDA_CORE) - set(expect)
+                                       WIDE_BF16)):
+        others = set(WIDE_BF16 + WIDE_F32 + WIDE_CUDA_CORE) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
     lite_f32 = lite_f32_kernels(dev)
@@ -2445,14 +2422,14 @@ def phase_widths(dev) -> dict:
     # the bf16 model at embedding 72 at the train shape: layer 0 on the
     # tensor-core forward and sweep (bilstm_fwd.cu and bilstm_bwd.cu never),
     # the stacked layer wide at 96 on the one-block bf16 wide forward and
-    # lite sweep (bilstm_fwd_wide.cu and bilstm_bwd_lite.cu never)
+    # lite sweep (bilstm_fwd_wide.cu never)
     models["embedding_72_bfloat16"] = f32_steps(
         dev, batches, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                        "bilstm_wgrad_mma", "bilstm_gates_mma",
                        "bilstm_fwd_wide_train_mma_resident", "bilstm_fwd_wide_mma_resident",
                        "bilstm_bwd_lite_mma_resident"),
         ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad",
-         "bilstm_bwd_lite", "bilstm_fwd_wide_train", "bilstm_fwd_wide"),
+         "bilstm_fwd_wide_train", "bilstm_fwd_wide"),
         eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
@@ -2462,16 +2439,15 @@ def phase_widths(dev) -> dict:
                                             "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
                                             torch.float32)
     # layer 0 at E = H = 160, 192, 224, 5 groups: in f32 the f32 tensor-core
-    # wide forward, in turns with the CUDA-core one by name, and lite sweep;
-    # in bf16 the CUDA-core forward (its main path) and the bf16
-    # tensor-core lite sweep, in turns with the CUDA-core one by name: timed
-    # beside their bounds and cuDNN
+    # wide forward and lite sweep; in bf16 the bf16 tensor-core forward's
+    # kernel for uneven groups and the lite sweep: timed beside their bounds
+    # and cuDNN (the CUDA-core forward, retired there, no longer by name)
     kernels_f32_wide = {f"h{H}": wide_cuda_core_kernels(
         dev, (H,), H, G_TRAIN, 2, H, SEED + 53 + H, "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32",
-        torch.float32, fwd_by_name=True) for H in (160, 192, 224)}
+        torch.float32) for H in (160, 192, 224)}
     kernels_bf16_wide = {f"h{H}": wide_cuda_core_kernels(
-        dev, (H,), H, G_TRAIN, 2, H, SEED + 54 + H, "bilstm_fwd_wide", "bilstm_bwd_lite_mma",
-        torch.bfloat16, lite_by_name=True) for H in (160, 192, 224)}
+        dev, (H,), H, G_TRAIN, 2, H, SEED + 54 + H, "bilstm_fwd_wide_mma", "bilstm_bwd_lite_mma",
+        torch.bfloat16) for H in (160, 192, 224)}
     steps = []
     for backend, width, dtype, expect, *never in WIDTH_STEPS:
         lstm.DEFAULT_BACKEND = "recurrence" if backend == "recurrence" else "auto"
@@ -2486,8 +2462,43 @@ def phase_widths(dev) -> dict:
            "bf16_72": bf16_72, "bwd_16": bwd_16, "fwd_56": fwd_56,
            "kernels_288": kernels_288, "kernels_96": kernels_96,
            "kernels_96_float32": kernels_96_f32, "kernels_float32_wide": kernels_f32_wide,
-           "kernels_bfloat16_wide": kernels_bf16_wide, "grad_checks": steps}
+           "kernels_bfloat16_wide": kernels_bf16_wide,
+           "fwd_mma_uneven": fwd_mma_uneven_build(dev), "grad_checks": steps}
     emit(out)
+    return out
+
+
+def fwd_mma_uneven_build(dev) -> dict:
+    """The bf16 wide forward's kernel for uneven unit groups at 160-288, per
+    instance: registers and spill bytes (the build's ``-Xptxas -v``), its
+    shared memory, the blocks an SM it is compiled for (two where two fit
+    the SM's shared memory, ``csrc/bilstm_fwd_wide_mma.cu:blocks_per_sm_u``)
+    and the clusters the card holds at once."""
+    import re
+
+    from intrepppid_tpu_torch.ops import _build
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+
+    log = _build.build_logs.get("bilstm_fwd_wide_mma", "").splitlines()
+    out = {}
+    for i, line in enumerate(log):
+        m = re.search(r"uneven_kernelILi(\d+)ELi(\d+)E", line)
+        if not m:
+            continue
+        H, R = int(m.group(1)), int(m.group(2))
+        nxt = next((j for j in range(i + 1, len(log)) if "Compiling entry" in log[j]), len(log))
+        tail = " ".join(log[i + 1:nxt])
+        regs = re.search(r"Used (\d+) registers", tail)
+        spill = re.search(r"(\d+) bytes spill stores", tail)
+        smem = L.wide_smem("fwd_mma", H, R)
+        out[f"h{H}_rows{R}"] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(spill.group(1)) if spill else None, "smem": smem,
+            "blocks_per_sm": 2 if 2 * (smem + 1024) <= 233472 else 1,
+            "max_active_clusters": L._max_clusters(
+                "bilstm_fwd_wide_mma", torch.bfloat16, H, dev)(R, smem)}
+    if not all(f"h{H}_rows32" in out for H in (160, 192, 224, 288)):
+        raise AssertionError(f"no ptxas report of the uneven forward's instances: {sorted(out)}")
     return out
 
 
@@ -2559,10 +2570,6 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
     res["dgates"] = rel_err(L.bilstm_bwd_lite(*args), dgates, tol)
-    if L.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma":
-        # the dispatch took the tensor-core sweep; the CUDA-core one by name
-        res["cuda_core_dgates"] = rel_err(L.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite"),
-                                          dgates, tol)
     del xg, args
     dgc = dgates.to(dtype)
     del dgates
@@ -2855,6 +2862,94 @@ def ragged_wide_f32_check(dev) -> list:
     return out
 
 
+# the bf16 wide route's weight gradient split as the JAX lite mode splits it
+# (dW_ih on cuBLAS, dW_hh on bilstm_wgrad_mma with no input part), timed on
+# the wide layers (E parts, H at their true widths; weight groups) of the
+# scaled step (H = 256), of the bf16 models at embedding 160 and 272 (run at
+# 288) and of the stacked layer of the bf16 model at embedding 80 (at 96)
+WGRAD_SPLIT_LAYERS = {
+    "h256": ((([E_SCALED], E_SCALED), G_TRAIN), (([E_SCALED, E_SCALED], E_SCALED), 1)),
+    "h160": ((([160], 160), G_TRAIN), (([160, 160], 160), 1)),
+    "h288": ((([272], 272), G_TRAIN), (([272, 272], 272), 1)),
+    "h96": ((([80, 80], 80), 1),),
+}
+
+
+def wgrad_split_timings(dev) -> dict:
+    """``bilstm_wgrad_split`` on each width's layers of ``WGRAD_SPLIT_LAYERS``
+    at their padded shapes, at the train shape (400 rows, T = 1500, random
+    bf16 operands): held against the plain sums (``TOL``), timed in turns
+    with the whole ``bilstm_wgrad_mma`` kernel on the same operands (split,
+    whole, whole, split), its two parts alone (``dw_ih_ms``: the cuBLAS
+    products, ``dw_hh_ms``: the kernel's launch with no input part) and
+    cuBLAS bf16 products of all of it (``wgrad_library``, a yardstick the
+    port never calls), each summed over the width's layers; the bounds of
+    the whole work and of each part at the bf16 rate (each operand read
+    once, the f32 results written once)."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_wgrad
+
+    cd, size, rows = torch.bfloat16, 2, T_TRAIN * B_TRAIN
+    out = {}
+    for tag, layers in WGRAD_SPLIT_LAYERS.items():
+        t = {k: 0.0 for k in ("ms", "ms_again", "whole_ms", "dw_ih_ms", "dw_hh_ms",
+                              "library_ms", "plain_ms")}
+        work = {k: [0.0, 0.0] for k in ("whole", "dw_ih", "dw_hh")}
+        errs, shapes = [], []
+        for i, ((E_true, H_true), G) in enumerate(layers):
+            if L.layer_route(E_true, H_true, cd) != "wide":
+                raise AssertionError(f"E={E_true}, H={H_true} does not run wide in bf16")
+            H = L.padded_width(E_true, H_true, cd)
+            E_parts = list(L.padded_parts(E_true, H_true, cd))
+            shapes.append({"E_parts": E_parts, "H": H, "G": G})
+            g = torch.Generator(device=dev).manual_seed(SEED + 60 + H + i)
+
+            def u(*shape):
+                return (torch.rand(*shape, generator=g, device=dev) * 2 - 1).to(cd)
+
+            dgc, hs_f, hs_b = u(2, T_TRAIN, B_TRAIN, 4 * H), u(T_TRAIN, B_TRAIN, H), u(
+                T_TRAIN, B_TRAIN, H)
+            parts = tuple(u(T_TRAIN, B_TRAIN, e) for e in E_parts)
+            want, plain_ms = timed_once(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
+            got = L.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G)
+            for a, b in zip(got, want):
+                e, ok = rel_err(a, b, TOL[cd])
+                errs.append(e)
+                if not ok:
+                    emit({"phase": "wide_kernel", "failed": {
+                        "kernel": "bilstm_wgrad_split", "H": H, "E_parts": E_parts,
+                        "max_abs_err": e, "tol": f"{TOL[cd]} x max(1, max|ref|)"}})
+                    raise AssertionError(f"the split wgrad at H={H} disagrees: {e}")
+            del want, got
+            a, b, c = in_turns(lambda: L.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G),
+                               lambda: L.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G), 3)
+            t["ms"] += a
+            t["ms_again"] += b
+            t["whole_ms"] += c
+            t["dw_ih_ms"] += time_ms(lambda: L.bilstm_wgrad_ih(dgc, parts), 3)
+            t["dw_hh_ms"] += time_ms(lambda: L.bilstm_wgrad_mma(dgc, (), hs_f, hs_b, G), 3)
+            t["library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
+            t["plain_ms"] += plain_ms
+            E = sum(E_parts)
+            dgc_bytes = 2 * rows * 4 * H * size
+            for k, f, nbytes in (
+                    ("dw_ih", 2 * 2 * rows * 4 * H * E, dgc_bytes + rows * E * size
+                     + 2 * 4 * H * E * 4),
+                    ("dw_hh", 2 * 2 * rows * 4 * H * H, dgc_bytes + 2 * rows * H * size
+                     + 2 * G * 4 * H * H * 4),
+                    ("whole", 2 * 2 * rows * 4 * H * (E + H), dgc_bytes + rows * E * size
+                     + 2 * rows * H * size + 2 * 4 * H * (E + G * H) * 4)):
+                work[k][0] += f
+                work[k][1] += nbytes
+            del dgc, hs_f, hs_b, parts
+        for k, (f, nbytes) in work.items():
+            t[f"{k}_bound_ms"], t[f"{k}_bound_by"] = bound([(f, nbytes, PEAK_BF16_FLOPS)])
+        t["max_abs_err"] = max(errs)
+        t["layers"] = shapes
+        out[tag] = t
+    return out
+
+
 def phase_wide_kernel(dev) -> dict:
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import (
@@ -2914,23 +3009,22 @@ def phase_wide_kernel(dev) -> dict:
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
             # new, old, old, new: a tensor-core kernel and the CUDA-core one
-            # by name, on the same operands: wgrad, and in bf16 the forward
-            # and the lite sweep; the gates (whose CUDA-core kernel is gone)
-            # and, in f32, the forward and the lite sweep (whose CUDA-core
-            # kernels no longer take 256 units in f32) are timed alone
+            # by name, on the same operands: wgrad, and in bf16 the forward;
+            # the gates and the lite sweep (whose CUDA-core kernels are gone)
+            # and, in f32, the forward (whose CUDA-core kernel no longer
+            # takes 256 units in f32) are timed alone
             turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
                       lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
-            alone = [("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype))]
-            fwd_lite = [("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
-                         lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
-                        ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
-                         lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide")),
-                        ("lite", lambda: L.bilstm_bwd_lite(*lite_args),
-                         lambda: L.bilstm_bwd_lite(*lite_args, kernel="bilstm_bwd_lite"))]
+            alone = [("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype)),
+                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args))]
+            fwd = [("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
+                    lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
+                   ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
+                    lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide"))]
             if bf16:
-                turns += fwd_lite
+                turns += fwd
             else:
-                alone += [(key, new) for key, new, _ in fwd_lite]
+                alone += [(key, new) for key, new, _ in fwd]
             for key, new in alone:
                 add(f"{key}_ms", time_ms(new, 3))
             for key, new, old in turns:
@@ -3037,7 +3131,7 @@ def phase_wide_kernel(dev) -> dict:
     cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
                       for k, v in L._cluster_counts.items()}
     out = {"phase": "wide_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings,
+           "timings": timings, "wgrad_split": wgrad_split_timings(dev),
            "max_active_clusters": cluster_counts,
            "shape": {"B": B_TRAIN, "groups": G_TRAIN, "T": T_TRAIN, "H": H,
                      "layers": "E=256 (grouped W_hh) + E=2x256"}}
@@ -3080,20 +3174,18 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
                 "fwd_wide": "bilstm_fwd_wide_kernel",
                 "fwd_wide_f32": "bilstm_fwd_wide_f32_kernel",
                 "lite_mma": "bilstm_bwd_lite_mma_kernel",
-                "lite_cuda_core": "bilstm_bwd_lite_kernel",
                 "lite_f32": "bilstm_bwd_lite_f32_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel",
                 "wgrad_cuda_core": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel"),
                 "gemm": ("gemm", "nvjet", "xmma")})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
-    missing = [n for n in ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
-                           "bilstm_bwd_lite_mma", "bilstm_wgrad_mma") if launches[n] <= 0]
+    missing = [n for n in WIDE_BF16 if launches[n] <= 0]
     old = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
                        "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
                        "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
                        "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32",
-                       "bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_bwd_lite",
+                       "bilstm_fwd_wide_train", "bilstm_fwd_wide",
                        "bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32")
            if launches[n] != 0]
@@ -3112,7 +3204,8 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     for check, want, never in (
             (grad_check, WIDE_F32, WIDE_BF16 + WIDE_CUDA_CORE),
             (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma",
-                               "bilstm_fwd_wide_train_mma"), WIDE_F32 + WIDE_CUDA_CORE)):
+                               "bilstm_fwd_wide_train_mma", "bilstm_wgrad_ih"),
+             WIDE_F32 + WIDE_CUDA_CORE)):
         ran = check["launches"]
         if any(ran.get(n, 0) <= 0 for n in want) or any(ran.get(n, 0) for n in never):
             raise AssertionError(f"the {check['dtype']} gradient step at the scaled widths ran "
@@ -4239,6 +4332,23 @@ def main() -> int:
                               "(E=H=80, 5 groups), its launches in that model's steps, "
                               "cuda_core_ms: bilstm_wgrad.cu by name in turns, library: "
                               "cuBLAS bf16 products")
+            # the bf16 wide route's split: dW_hh alone on this kernel, dW_ih on
+            # cuBLAS (bilstm_wgrad_ih, counted per layer call)
+            for tag, o in wk["wgrad_split"].items():
+                entry.update({f"split_{tag}_{k}": v for k, v in o.items() if k != "layers"})
+            entry["split_dw_ih_launches"] = scaled["launches"]["bilstm_wgrad_ih"]
+            entry["split_h160_dw_ih_launches"] = widths["models"]["embedding_160_bfloat16"][
+                "launches"]["bilstm_wgrad_ih"]
+            entry["work"] += ("; split_hN_*: the bf16 wide route's split on the wide layers at "
+                              "H=N (256: the scaled step's two; 160 and 288: layer 0 and the "
+                              "stacked layer of the bf16 models at embedding 160 and 272; 96: "
+                              "the stacked layer at embedding 80), 400 rows, T=1500: ms the "
+                              "split in turns with the whole kernel (whole_ms), dw_hh_ms this "
+                              "kernel with no input part, dw_ih_ms the cuBLAS bf16 products with "
+                              "f32 output, library_ms cuBLAS for all of it, bounds of each at "
+                              "989 TFLOP/s; split_dw_ih_launches: the scaled step's dW_ih calls")
+            if min(entry["split_dw_ih_launches"], entry["split_h160_dw_ih_launches"]) <= 0:
+                raise AssertionError("a bf16 wide step never split its weight gradient")
         kernels.append(entry)
     wide_errs = {
         "gates": ("xg",),
@@ -4247,8 +4357,7 @@ def main() -> int:
         "lite": ("dgates",),
     }
     # the CUDA-core wide forward: its main path is the stacked layer of the
-    # f32 two-layer model at embedding 80 (run at H = 96), and layer 0 of the
-    # bf16 model at embedding 160 (E = H = 160), whose steps run it too;
+    # f32 two-layer model at embedding 80 (run at H = 96);
     # timed in bf16 at 160 / 192 / 224 (bfloat16_hN_*: its main path there),
     # by name in bf16 at the scaled widths in turns with the tensor-core
     # kernel (bf16_h256_ms) and in f32 at 160 / 192 / 224 in turns with the
@@ -4284,34 +4393,8 @@ def main() -> int:
                     "H=80, TF32 off; bf16_h256_ms: by name on the bf16 scaled step's operands "
                     "(layer 0 + one E=2x256 layer), in turns with the tensor-core kernel",
         }
-        # bf16 and f32 at 160, 192 and 224 (layer 0 at E = H, 5 groups, two
-        # dy streams); in f32 by name, in turns with the f32 tensor-core one
-        for h, r in kbf16.items():
-            entry.update({f"bfloat16_{h}_{k}": r[key][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            entry[f"bfloat16_{h}_max_abs_err"] = max(r[key]["max_abs_err"].values())
-        for h, r in kf32.items():
-            o = r[key]
-            entry.update({f"float32_{h}_ms": o["cuda_core_ms"],
-                          f"float32_{h}_bound_ms": o["cuda_core_bound_ms"],
-                          f"float32_{h}_library_ms": o["library_ms"],
-                          f"float32_{h}_library_fwd_again_ms": o["library_fwd_again_ms"],
-                          f"float32_{h}_max_abs_err": max(
-                              v for n, v in o["max_abs_err"].items()
-                              if n.startswith("cuda_core_"))})
-        entry["bfloat16_launches"] = g160["bfloat16"]["launches"].get(name, 0)
-        entry["bfloat16_h160_launches"] = widths["models"]["embedding_160_bfloat16"][
-            "launches"][name]
-        entry["work"] += ("; bfloat16_hN_* / float32_hN_*: layer 0 at E=H=N (5 groups, two dy "
-                          "streams), 400 rows, T=1500, library: cuDNN one-layer there in that "
-                          "dtype; float32_hN_*: by name, in turns with bilstm_fwd_wide_f32, bound "
-                          "at 67 TFLOP/s, float32_hN_library_fwd_again_ms: cuDNN's training "
-                          "forward read a second time, after its backward; bfloat16_launches: "
-                          "the bf16 model at embedding 160's gradient and eval step, "
-                          "bfloat16_h160_launches: its timed steps")
-        if min(entry["launches"], entry["bfloat16_launches"],
-               entry["bfloat16_h160_launches"]) <= 0:
-            raise AssertionError(f"the models at embedding 80 and 160 never ran {name}")
+        if entry["launches"] <= 0:
+            raise AssertionError(f"the f32 model at embedding 80 never ran {name}")
         kernels.append(entry)
     # the one-block bf16 wide forward (both variants): its main path is the
     # stacked layer of the bf16 models at embedding 80 and 72 (run at H = 96)
@@ -4448,21 +4531,18 @@ def main() -> int:
         entry["h128_launches"] = f32_models["embedding_100_float32"]["launches"][name]
         if key != "gates":
             # the forward's instances for 2 / 3, 3 and 3 / 4 unit groups a
-            # block: layer 0 at E = H = 160, 192, 224, in turns with
-            # bilstm_fwd_wide.cu by name; launches in the f32 model at
-            # embedding 160's timed steps and its gradient and eval step
+            # block: layer 0 at E = H = 160, 192, 224; launches in the f32
+            # model at embedding 160's timed steps and its gradient and eval step
             for h, r in kf32.items():
                 o = r[key]
                 entry.update({f"{h}_{k}": o[k] for k in (
-                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms", "library_fwd_again_ms", "scaled_err")})
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_fwd_again_ms",
+                    "scaled_err")})
                 entry[f"{h}_max_abs_err"] = max(
                     [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
                     + [v for c in tk["ragged_checks"] if c["kernel"] == source
                        and c["H"] == int(h[1:]) for n, v in c["max_abs_err"].items()
                        if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")])
-                entry[f"{h}_cuda_core_max_abs_err"] = max(
-                    v for n, v in o["max_abs_err"].items() if n.startswith("cuda_core_"))
                 if key == "fwd":
                     entry.update({f"{h}_{k}": o[k] for k in (
                         "rows", "tiles", "max_active_clusters")})
@@ -4473,9 +4553,7 @@ def main() -> int:
             entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in f32 (5 groups), "
                               "400 rows, T=1500, the row tile of the plan (h160_rows_ms: each "
                               "row tile, rows_R_dispatch_ms the dispatch in turns with it), "
-                              "cuda_core_ms: bilstm_fwd_wide.cu by name on the same operands "
-                              "(new, old, old, new), its bound at 67 TFLOP/s "
-                              "cuda_core_bound_ms, bound at 495/3, library: cuDNN one-layer f32 "
+                              "bound at 495/3, library: cuDNN one-layer f32 "
                               "forward there (library_fwd_again_ms read again after its "
                               "backward); max_abs_err also over 27 rows in 3 groups at T = 1 "
                               "and 5; h160_launches: the f32 model at embedding 160's timed "
@@ -4525,13 +4603,15 @@ def main() -> int:
         }
         if key == "gates":
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
-        else:
+        elif key != "lite":
             entry.update({"ms_again": w16[f"{key}_ms_again"],
                           "cuda_core_ms": w16[f"{key}_cuda_core_ms"],
                           "rows_ms": {k: v for k, v in w16.items()
                                       if k.startswith(f"{key}_rows")}})
             entry["work"] += ("; cuda_core_ms: the CUDA-core kernel by name on the same "
                               "operands (new, old, old, new)")
+        else:
+            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith("lite_rows")}
         if key in ("fwd", "fwd_eval"):
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"][f"{key}_mma"]
@@ -4548,6 +4628,33 @@ def main() -> int:
                               "H=288, 5 groups), 400 rows, T=1500, bound at H=288 "
                               "(true_bound_ms at 272), launches in that model's steps, "
                               "library: cuDNN one-layer bf16 at E=H=272")
+            # its instances for 2 / 3, 3 and 3 / 4 unit groups a block: layer 0
+            # at E = H = 160, 192, 224 in bf16; launches in the bf16 model at
+            # embedding 160's timed steps and its gradient and eval step
+            for h, r in kbf16.items():
+                o = r[f"{key}_mma"]
+                entry.update({f"{h}_{k}": o[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scaled_err")})
+                entry.update({f"{h}_{k}": r["fwd_mma"][k] for k in (
+                    "rows", "tiles", "max_active_clusters")})
+                if key == "fwd":
+                    entry[f"{h}_rows_ms"] = {k: v for k, v in o.items()
+                                             if k.startswith("rows_") and k.endswith("_ms")}
+                entry[f"{h}_max_abs_err"] = max(
+                    [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
+                    + [v for c in tk["ragged_checks"] if c["kernel"] == "bilstm_fwd_wide_mma"
+                       and c["H"] == int(h[1:]) for n, v in c["max_abs_err"].items()
+                       if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")])
+            entry["h160_launches"] = widths["models"]["embedding_160_bfloat16"]["launches"][name]
+            entry["h160_grad_check_launches"] = g160["bfloat16"]["launches"].get(name, 0)
+            entry["work"] += ("; h160_* / h192_* / h224_*: its kernel for uneven unit groups on "
+                              "layer 0 at E=H=N in bf16 (5 groups), 400 rows, T=1500, the row "
+                              "tile of the plan (h160_rows_ms: each row tile), "
+                              "library: cuDNN one-layer bf16 there; max_abs_err also over 27 "
+                              "rows in 3 groups at T = 1 and 5; h160_launches: the bf16 model "
+                              "at embedding 160's timed steps")
+            if min(entry["h160_launches"], entry["h160_grad_check_launches"]) <= 0:
+                raise AssertionError(f"the bf16 model at embedding 160 never ran {name}")
         if key == "lite":
             # its instance for uneven unit groups: layer 0 of the bf16 model at embedding 272
             k288 = widths["kernels_288"]["lite_mma"]
@@ -4566,26 +4673,21 @@ def main() -> int:
                               "against the twin, in turns with the H=256 kernel (uneven, even, "
                               "even, uneven)")
             # its instances for 2 / 3, 3 and 3 / 4 unit groups a block: layer 0
-            # at E = H = 160, 192, 224 in bf16, in turns with bilstm_bwd_lite.cu
-            # by name; launches in the bf16 model at embedding 160's timed
-            # steps and its gradient and eval step
+            # at E = H = 160, 192, 224 in bf16; launches in the bf16 model at
+            # embedding 160's timed steps and its gradient and eval step
             for h, r in kbf16.items():
-                o = r["lite"]
+                o = r["lite_mma"]
                 entry.update({f"{h}_{k}": o[k] for k in (
-                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms", "scaled_err", "rows", "tiles",
-                    "max_active_clusters")})
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scaled_err", "rows",
+                    "tiles", "max_active_clusters")})
                 entry[f"{h}_max_abs_err"] = max(
-                    [v for n, v in o["max_abs_err"].items() if not n.startswith("cuda_core_")]
+                    list(o["max_abs_err"].values())
                     + [v for c in tk["ragged_checks"] if c["kernel"] == name
                        and c["H"] == int(h[1:]) for v in c["max_abs_err"].values()])
-                entry[f"{h}_cuda_core_max_abs_err"] = o["max_abs_err"]["cuda_core_dgates"]
             entry["h160_launches"] = widths["models"]["embedding_160_bfloat16"]["launches"][name]
             entry["h160_grad_check_launches"] = g160["bfloat16"]["launches"].get(name, 0)
             entry["work"] += ("; h160_* / h192_* / h224_*: layer 0 at E=H=N in bf16 (5 groups, "
                               "two dy streams), 400 rows, T=1500, the row tile of the plan, "
-                              "cuda_core_ms: bilstm_bwd_lite.cu by name on the same operands "
-                              "(new, old, old, new), its bound at 67 TFLOP/s cuda_core_bound_ms, "
                               "library: cuDNN one-layer bf16 backward (input) there; max_abs_err "
                               "also over 27 rows in 3 groups at T = 1 and 5; h160_launches: the "
                               "bf16 model at embedding 160's timed steps")

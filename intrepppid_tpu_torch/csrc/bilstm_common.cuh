@@ -1,6 +1,5 @@
 // Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
-// bilstm_wgrad.cu, bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
-// lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
+// bilstm_wgrad.cu, bilstm_fwd_wide.cu, lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
 // lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
 // kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu among them on
 // the wide kernels' cluster launch and barriers): compute-dtype
@@ -126,8 +125,8 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
   }
 }
 
-// The wide kernels (bilstm_fwd_wide.cu, bilstm_bwd_lite.cu,
-// lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu) split one row tile's
+// The CUDA-core cluster kernels (bilstm_fwd_wide.cu, lstm_recurrence_fwd.cu,
+// lstm_recurrence_bwd.cu) split one row tile's
 // hidden units over a cluster of kWideCluster blocks of H threads
 // (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
 // of kWideRows. Each kernel is instantiated for blocks of at most

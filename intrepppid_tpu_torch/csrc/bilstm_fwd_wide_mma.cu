@@ -67,35 +67,45 @@
 // hs bits. This kernel takes H = 128 and 256 (whole 8-unit groups in each
 // block, and 8 warps split evenly over them).
 //
-// H = 288 (every bf16 layer of 257-288 units, padded there; both layers of
-// the two-layer model at embedding 272) takes a second kernel of the same
-// design, bilstm_fwd_wide_mma_uneven_kernel:
-//   * the 36 unit groups split 4 / 5 over the cluster's blocks
+// H = 160, 192, 224 and 288 (every bf16 layer of 129-256 units that pads to
+// them, and of 257-288 units, padded to 288; both layers of the two-layer
+// models at embedding 160 and 272) take a second kernel of the same design,
+// bilstm_fwd_wide_mma_uneven_kernel:
+//   * the H / 8 unit groups split unevenly over the cluster's blocks, 2 / 3 at
+//     160, 3 at 192, 3 / 4 at 224, 4 / 5 at 288
 //     (lstm_recurrence_wide_mma.cuh:unit_groups), so the 8 warps cannot
-//     take the groups evenly. The work of a block is its UG x NT items
+//     take the groups evenly (at 192 neither: 3 groups over 8 warps). The
+//     work of a block is its UG x NT items
 //     (unit group, n8 row tile), each a unit's four gates for 8 rows in one
 //     lane (no exchange). They are dealt out over all 8 warps as contiguous
 //     runs in group-major order: warp w takes items [w N / 8, (w + 1) N / 8)
-//     of the N = UG NT, at most ceil(5 NT / 8) items of at most two groups
-//     (at 32-row tiles: 2 / 3 / 2 / 3 / ... at 5 groups, 2 each at 4). So every
-//     warp works in the gate product and the cell, and a warp loads the
-//     weight fragments of at most two groups a k32 step, each feeding all
-//     its items of that group. (bilstm_bwd_lite_mma.cu's uneven instance
-//     gives warp w < UG one group over every n8 tile instead, which idles
-//     3-4 warps in its gate product.)
-//   * the weights stay resident: the bf16 slice of the largest block (5
-//     groups, 160 gate rows of 288 + 8) is 94,720 B; with the two h tiles
-//     and the staging of 40 units, 138,752 B at 32-row tiles: one block an
-//     SM (no tile fits two);
-//   * row tiles of 16, 32 and 40 rows, at most 4 items a warp, so the
-//     weight fragments of the next k32 step load while the current one's
-//     products run (pipelined_rounds, two fragment buffers) within the 255
-//     registers of a thread. 64- and 80-row tiles (5-7 items a warp) fit
-//     shared memory but not that: with the fragments loaded right before
-//     their products the 80-row tile spilled and took 21.39 ms a layer in
-//     one wave against 15.93 for 32 rows in two (chip_smoke.py phase
-//     widths, PERF.md), so they are not built. At the train step's 400 rows
-//     in 5 groups 32-row tiles make 30 clusters, two waves of 15.
+//     of the N = UG NT, at most ceil(MG NT / 8) items of at most two groups
+//     (MG = ceil(H / 64), the most groups a block owns). So every warp works
+//     in the gate product and the cell. (bilstm_bwd_lite_mma.cu's uneven
+//     instance gives warp w < UG one group over every n8 tile instead, which
+//     idles 3-4 warps in its gate product.)
+//   * the weights stay resident: the bf16 slice of the largest block (MG
+//     groups, 32 MG gate rows of H + 8); with the two h tiles and the staging
+//     of 8 MG units, 57,856 / 68,096 / 94,208 B at 32-row tiles at 160 / 192
+//     / 224, so two blocks fit an SM (blocks_per_sm_u), and 138,752 B at 288:
+//     one block an SM (no tile fits two there);
+//   * the gate product's weight fragments of the next round load while the
+//     current round's products run (pipelined_rounds, two fragment buffers).
+//     At one block an SM (288) a round is a k32 step of both of a warp's
+//     groups (two fragment sets a buffer, within the 255 registers of a
+//     thread). At two blocks an SM (160-224) a thread has 128 registers, and
+//     a round is a k32 step of ONE group (SEGS = 1: the rounds go step 0
+//     group 0, step 0 group 1, step 1 group 0, ...; a warp of one group
+//     skips the second group's rounds), which halves the fragments held;
+//     the other block's products cover the shorter rounds;
+//   * row tiles of 16, 32 and 40 rows, at most 4 items a warp. At the train
+//     step's 400 rows in 5 groups 32-row tiles make 30 clusters: at 160-224
+//     one wave at two blocks an SM (as the even kernel at 256), at 288 two
+//     waves of 15. 64- and 80-row tiles (5-7 items a warp at 288) fit
+//     shared memory but not the registers: with the fragments loaded right
+//     before their products the 80-row tile spilled and took 21.39 ms a
+//     layer in one wave against 15.93 for 32 rows in two (chip_smoke.py
+//     phase widths, PERF.md), so they are not built.
 
 #include <cooperative_groups.h>
 
@@ -372,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(H, BR))
     }
 }
 
-// ---------------------------------------------- H = 288: uneven group split
+// ------------------------------- H = 160, 192, 224, 288: uneven group split
 // Dynamic shared memory of the uneven instance <H, BR> (bytes), in layout
 // order: the W_hh slice, the two h tiles and the staging, each per-block
 // width sized for the block that owns the most groups, MG = ceil(H / 64).
@@ -384,16 +394,26 @@ __host__ __device__ constexpr int smem_stage_u(int H, int BR) {
 __host__ __device__ constexpr int smem_bytes_u(int H, int BR) {
   return smem_w_u(H) + smem_h(H, BR) + smem_stage_u(H, BR);
 }
+// Blocks an SM the uneven instance <H, BR> is compiled for: two where two
+// fit the SM's shared memory (160-224), else one (288).
+__host__ __device__ constexpr int blocks_per_sm_u(int H, int BR) {
+  return 2 * (smem_bytes_u(H, BR) + 1024) <= 233472 ? 2 : 1;
+}
 
-// One k32 step of the gate product's weight fragments: [segment][k16 half][m16 half].
+// One round of the gate product's weight fragments: [group of the round][k16 half][m16 half].
+template <int SEGS>
 struct UnevenFrag {
-  uint32_t a[2][2][2][4];
+  uint32_t a[SEGS][2][2][4];
 };
 
 // grid (tiles * kWideCluster, 2) in clusters of kWideCluster, kThreads threads.
 template <int H, int BR>
-__global__ void __launch_bounds__(kThreads, 1) bilstm_fwd_wide_mma_uneven_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, blocks_per_sm_u(H, BR))
+    bilstm_fwd_wide_mma_uneven_kernel(const Args a) {
   constexpr int MG = uneven_groups(H);  // most unit groups a block owns
+  // groups whose fragments a round holds: both at one block an SM, one at two
+  constexpr int SEGS = blocks_per_sm_u(H, BR) == 1 ? 2 : 1;
+  constexpr int ROUNDS = (H / 32) * (2 / SEGS);
   constexpr int UM = 8 * MG;            // most units a block owns
   constexpr int H4 = 4 * H;
   constexpr int NT = BR / 8;                              // n8 tiles of the row tile
@@ -535,37 +555,42 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_fwd_wide_mma_uneven_kernel
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[j][mt][v] = 0.0f;
     const uint32_t b_base = smem0 + H_AT + (uint32_t)(buf * BR * KS * 2) + b_gate;
-    auto load = [&](UnevenFrag& f, int r) {
+    // round r: k32 step r of both groups (SEGS = 2), or k32 step r / 2 of group r % 2
+    auto load = [&](UnevenFrag<SEGS>& f, int r) {
+      const int k = SEGS == 2 ? r : r >> 1;
 #pragma unroll
-      for (int sg = 0; sg < 2; ++sg) {
+      for (int s = 0; s < SEGS; ++s) {
+        const int sg = SEGS == 2 ? s : r & 1;
         if (sg == 1 && !two) continue;
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
-            ldmatrix_x4(f.a[sg][kh][mt],
-                        a_gate + (uint32_t)(((32 * sg + 16 * mt) * KS + 32 * r + 16 * kh) * 2));
+            ldmatrix_x4(f.a[s][kh][mt],
+                        a_gate + (uint32_t)(((32 * sg + 16 * mt) * KS + 32 * k + 16 * kh) * 2));
       }
     };
-    auto use = [&](const UnevenFrag& f, int r) {
+    auto use = [&](const UnevenFrag<SEGS>& f, int r) {
+      const int k = SEGS == 2 ? r : r >> 1;
 #pragma unroll
       for (int j = 0; j < GI; ++j) {
         if (j >= ni) continue;
-        uint32_t b[4];
-        ldmatrix_x4(b, b_base + (uint32_t)((8 * nt[j] * KS + 32 * r) * 2));
         const int sg = j < n0 ? 0 : 1;
+        if (SEGS == 1 && sg != (r & 1)) continue;
+        uint32_t b[4];
+        ldmatrix_x4(b, b_base + (uint32_t)((8 * nt[j] * KS + 32 * k) * 2));
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh)
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if (sg == 0)
+            if (SEGS == 1 || sg == 0)
               mma_bf16(acc[j][mt], f.a[0][kh][mt], b[2 * kh], b[2 * kh + 1]);
             else
-              mma_bf16(acc[j][mt], f.a[1][kh][mt], b[2 * kh], b[2 * kh + 1]);
+              mma_bf16(acc[j][mt], f.a[SEGS - 1][kh][mt], b[2 * kh], b[2 * kh + 1]);
           }
       }
     };
-    pipelined_rounds<UnevenFrag>(H / 32, load, use);
+    pipelined_rounds<UnevenFrag<SEGS>>(ROUNDS, load, use);
   };
 
   cp_async_wait<0>();
@@ -679,18 +704,20 @@ int bilstm_fwd_wide_mma_threads() { return kThreads; }
 int bilstm_fwd_wide_mma_pad() { return kPad; }
 // the row tiles of the instance for uneven groups, as a mask of rows / 8
 int bilstm_fwd_wide_mma_uneven_rows() { return (1 << 2) | (1 << 4) | (1 << 5); }
+// the widths of the instance for uneven groups, as a mask of H / 32
+int bilstm_fwd_wide_mma_uneven_widths() { return (1 << 5) | (1 << 6) | (1 << 7) | (1 << 9); }
 
 const char* bilstm_fwd_wide_mma_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // The compute dtype is bfloat16. `rows` is the row tile (16, 32, 40, 64 or
-// 80; 16, 32 or 40 at H = 288) and `smem` its dynamic shared memory, as
-// ops/lstm_cuda.py:wide_smem("fwd_mma", ...) computes it (refused
-// otherwise). xg (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G, 4H, H);
-// hs_f, hs_b (and cs_f, cs_b, both null for the eval variant) (T, B, H)
-// bf16; hn, cn (2, B, H) f32. H = 128 or 256, and 288 (the instance for
-// uneven unit groups); each of the G weight groups
+// 80; 16, 32 or 40 at H = 160, 192, 224 and 288) and `smem` its dynamic
+// shared memory, as ops/lstm_cuda.py:wide_smem("fwd_mma", ...) computes it
+// (refused otherwise). xg (2, T, B, 4H) f32; lengths (B,) int32; w_hh (2, G,
+// 4H, H); hs_f, hs_b (and cs_f, cs_b, both null for the eval variant) (T, B,
+// H) bf16; hn, cn (2, B, H) f32. H = 128 or 256, and 160, 192, 224 and 288
+// (the instance for uneven unit groups); each of the G weight groups
 // (B / G rows) is cut into its own tiles of `rows` rows: `tiles` =
 // G * ceil(B / G / rows). With max_clusters non-null, nothing is launched:
 // it receives how many clusters the card holds at once. Returns a
@@ -713,6 +740,9 @@ int bilstm_fwd_wide_mma(int rows, const void* xg, const void* lengths, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256) return launch_rows<256>(rows, a, tiles, smem, st, max_clusters);
   if (H == 128) return launch_rows<128>(rows, a, tiles, smem, st, max_clusters);
+  if (H == 160) return launch_rows_uneven<160>(rows, a, tiles, smem, st, max_clusters);
+  if (H == 192) return launch_rows_uneven<192>(rows, a, tiles, smem, st, max_clusters);
+  if (H == 224) return launch_rows_uneven<224>(rows, a, tiles, smem, st, max_clusters);
   if (H == 288) return launch_rows_uneven<288>(rows, a, tiles, smem, st, max_clusters);
   return (int)cudaErrorInvalidValue;
 }

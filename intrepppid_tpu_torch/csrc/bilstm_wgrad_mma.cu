@@ -7,7 +7,10 @@
 //     dw accumulations at :719-735, reduced by reduce_packed_grads at :956),
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (:436; dW_hh of the
 //     lite mode at large H, reduced by _reduce_dw_tiles at :709),
-// with their per-tile partial sums summed after the kernel.
+// with their per-tile partial sums summed after the kernel. On the bf16
+// wide route (the lite mode's layers) it computes dW_hh alone, with no
+// input part: the lite mode's dW_ih is an XLA GEMM (:1091-1108), and the
+// port's is a cuBLAS product (ops/lstm_cuda.py:bilstm_wgrad_split).
 //
 // Function (the contract of ops/lstm.py:bidir_layer_wgrad): for each
 // direction d and weight group g (rows [g * B/G, (g+1) * B/G)),
@@ -239,13 +242,17 @@ const char* bilstm_wgrad_mma_error_string(int err) {
 // The compute dtype is bfloat16. dgc (2, T, B, 4H); x0 (T, B, E0); x1
 // (T, B, E1) or null with E1 = 0; hs_f / hs_b (T, B, H); partial (splits,
 // 2, G, 4H, E0 + E1 + H) f32, every element written. Needs H % 8 == 0,
-// E0 > 0, E0 % 8 == E1 % 8 == 0, B % G == 0, T * B > 0.
+// E0 % 8 == E1 % 8 == 0, B % G == 0, T * B > 0, and E0 > 0 or no input
+// part at all: E0 = E1 = 0 with x0 and x1 null computes dW_hh alone (the
+// source columns are h_prev's; the bf16 wide route, whose dW_ih products
+// run outside the kernel, as the TPU kernel's lite mode leaves them to XLA).
 // Returns a cudaError_t (0 on success).
 int bilstm_wgrad_mma(const void* dgc, const void* x0, const void* x1, int E0, int E1,
                      const void* hs_f, const void* hs_b, void* partial, int T_steps, int B, int H,
                      int G, int splits, void* stream) {
-  if (H <= 0 || H % 8 || E0 <= 0 || E0 % 8 || E1 < 0 || E1 % 8 || (E1 > 0) != (x1 != nullptr) ||
-      G <= 0 || B <= 0 || B % G || T_steps <= 0 || splits <= 0)
+  if (H <= 0 || H % 8 || E0 < 0 || E0 % 8 || (E0 > 0) != (x0 != nullptr) || E1 < 0 || E1 % 8 ||
+      (E1 > 0) != (x1 != nullptr) || (E0 == 0 && E1 > 0) || G <= 0 || B <= 0 || B % G ||
+      T_steps <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.dgc = static_cast<const bf16*>(dgc);

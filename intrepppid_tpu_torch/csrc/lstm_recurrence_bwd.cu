@@ -26,7 +26,7 @@
 // streams (xg, hs, cs, dhs in, dxg out): operations from H = 64 up, bytes
 // at H = 32.
 //
-// Design: the cluster split of bilstm_bwd_lite.cu, at every width: a
+// Design: the cluster split of bilstm_fwd_wide.cu, at every width: a
 // cluster of 8 blocks per (row tile, direction), block k owning hidden
 // units [k H/8, (k+1) H/8) with its 4H/8 gate columns of w resident in f32,
 // laid out [k][unit*4 + gate] with rows padded by kPad elements; each

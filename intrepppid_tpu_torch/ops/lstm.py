@@ -363,11 +363,13 @@ def bidir_layer_wgrad(
     sum_{t, b in g} dgc[d,t,b] (x) h_prev[d,t,b]``, compute-dtype operands
     with f32 accumulation.
 
-    :returns: ``dW_ih (2, 4H, E)`` and ``dW_hh (2, G, 4H, H)``, f32.
+    :returns: ``dW_ih (2, 4H, E)`` and ``dW_hh (2, G, 4H, H)``, f32 (with
+        no input part, ``dW_ih`` is ``(2, 4H, 0)``).
     """
     T, B = dgc.shape[1:3]
     d = dgc.float()
-    x = torch.cat([p.float() for p in x_parts], dim=-1)
+    x = (torch.cat([p.float() for p in x_parts], dim=-1) if x_parts
+         else d.new_zeros((T, B, 0)))
     dw_ih = torch.einsum("dtbg,tbe->dge", d, x)
     hp = prev_states(hs_f, hs_b).float()
     G = groups

@@ -53,8 +53,9 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     blocks or, at 96 in bf16, in one block, by one of four kernels
     (``wide_fwd_kernel``): ``bilstm_fwd_wide_mma`` and
     ``bilstm_fwd_wide_train_mma`` launch ``csrc/bilstm_fwd_wide_mma.cu``
-    (bf16, H = 128, 256 and 288: the product on the tensor cores; at 288 an
-    instance whose cluster splits the unit groups 4 / 5 a block),
+    (bf16, H = 128-288 in steps of 32: the product on the tensor cores; at
+    160, 192, 224 and 288 an instance whose cluster splits the unit groups
+    unevenly, 2 / 3, 3, 3 / 4 and 4 / 5 a block),
     ``bilstm_fwd_wide_f32`` and ``bilstm_fwd_wide_train_f32`` launch
     ``csrc/bilstm_fwd_wide_f32.cu`` (f32 at those widths: three tf32 passes
     on the lite sweep's f32 fragment copy of ``W_hh^T``),
@@ -62,16 +63,17 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``bilstm_fwd_wide_train_mma_resident`` launch
     ``csrc/bilstm_fwd_wide_mma_resident.cu`` (bf16 at 96: one block a row
     tile, ``W_hh`` as ``mma.sync`` fragments in registers), the two wrappers
-    themselves launch ``csrc/bilstm_fwd_wide.cu`` for the rest (f32 at 96,
-    160, 192 and 224 in either dtype; CUDA cores). With ``bilstm_gates``,
+    themselves launch ``csrc/bilstm_fwd_wide.cu`` for the rest (f32 at 96;
+    CUDA cores). With ``bilstm_gates``,
     the counterpart of ``_fwd_pallas`` at these widths. Plain twin of all
     four: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
-    out), by one of five kernels (``lite_kernel``):
-    ``bilstm_bwd_lite_mma`` launches ``csrc/bilstm_bwd_lite_mma.cu`` (bf16,
-    H = 128, 256 and 288: the products on the tensor cores; at 288 an
-    instance whose cluster splits the unit groups 4 / 5 a block),
+    out), by one of four kernels (``lite_kernel``), the wrapper itself only
+    dispatching: ``bilstm_bwd_lite_mma`` launches
+    ``csrc/bilstm_bwd_lite_mma.cu`` (bf16, H = 128-288 in steps of 32: the
+    products on the tensor cores; at 160, 192, 224 and 288 a kernel whose
+    cluster splits the unit groups unevenly),
     ``bilstm_bwd_lite_f32`` launches ``csrc/bilstm_bwd_lite_f32.cu`` (f32 at
     those widths and at 160, 192 and 224: three tf32 passes on the f32
     fragment copy of ``W_hh^T`` read from L2, ``recurrence_f32_weights``),
@@ -80,9 +82,7 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     one block a row tile with ``W_hh`` resident in shared memory),
     ``bilstm_bwd_lite_mma_resident`` launches
     ``csrc/bilstm_bwd_lite_mma_resident.cu`` (bf16 at 96: the same schedule
-    in one bf16 pass on the tensor cores), ``bilstm_bwd_lite`` itself
-    launches ``csrc/bilstm_bwd_lite.cu`` for the rest (bf16 at 160, 192 and
-    224; CUDA cores). Plain twin of all five:
+    in one bf16 pass on the tensor cores). Plain twin of all four:
     ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
@@ -93,7 +93,13 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
   H % 32 == 0: the same GEMM in three tf32 passes), ``bilstm_wgrad``
   itself launches ``csrc/bilstm_wgrad.cu`` for the rest (f32 at other
   widths, CUDA cores). Plain twin of all three:
-  ``ops/lstm.py:bidir_layer_wgrad``.
+  ``ops/lstm.py:bidir_layer_wgrad``. On the wide route in bf16,
+  ``layer_bwd`` splits the products as the JAX lite mode does
+  (``lstm_pallas_layer.py:1091-1108``: ``dW_ih`` an XLA GEMM, ``dW_hh`` in
+  the Pallas kernel): ``bilstm_wgrad_split`` takes ``dW_ih`` from
+  ``bilstm_wgrad_ih`` (cuBLAS bf16 products with f32 output, one per
+  direction and input part) and ``dW_hh`` from ``bilstm_wgrad_mma`` with
+  no input part.
 
 Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
@@ -149,10 +155,11 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards (the wide ones too), ``bilstm_wgrad``, ``bilstm_bwd_lite``,
+the forwards (the wide ones too), ``bilstm_wgrad``,
 ``lstm_recurrence_fwd``, ``lstm_recurrence_bwd`` and
-``lstm_recurrence_wgrad``; ``bilstm_gates`` only dispatches, and
-``bilstm_gates_mma`` or ``bilstm_gates_f32`` counts.
+``lstm_recurrence_wgrad``; ``bilstm_gates`` and ``bilstm_bwd_lite`` only
+dispatch, and the kernel's own wrapper counts; ``bilstm_wgrad_ih`` counts
+its calls, each a layer's ``dW_ih`` products.
 """
 from __future__ import annotations
 
@@ -190,7 +197,7 @@ SMEM_LIMIT = 232448
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
 # bilstm_wgrad.cu (kTile), bilstm_common.cuh
-# (kWideCluster, kWideMaxThreads, kRecMaxH, kWideRowsMask), bilstm_bwd_lite.cu and
+# (kWideCluster, kWideMaxThreads, kRecMaxH, kWideRowsMask),
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
@@ -208,7 +215,7 @@ SMEM_LIMIT = 232448
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
 # bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
 # bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad, the uneven instance's
-# row tiles), bilstm_wgrad_f32.cu
+# row tiles and widths), bilstm_wgrad_f32.cu
 # (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
 # and lstm_recurrence_{fwd,bwd}_wide_f32.cu (kWideCluster, kThreads, their padding,
 # kMinH, kRecMaxH, the row tiles of each instance), bilstm_bwd_lite_f32.cu
@@ -222,7 +229,7 @@ WGRAD_TILE = 64
 # the wide kernels' blocks hold H threads, one per unit: at most 288 (a
 # second instance past WIDE_SMALL_THREADS, built where a route takes 257-288
 # units: the recurrence op's cluster kernels, in both dtypes; the CUDA-core
-# wide forward and lite sweep stop at WIDE_SMALL_THREADS); the recurrence
+# wide forward stops at WIDE_SMALL_THREADS); the recurrence
 # op's widest H on the card (its tensor-core kernels past 288); the wide
 # route's input parts are multiples of WIDE_PART_STEP wide
 WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
@@ -293,10 +300,10 @@ LITE_MMA_WIDTHS, LITE_MMA_ROWS = (128, 160, 192, 224, 256, 288), (16, 32, 40, 80
 LITE_MMA_UNEVEN_ROWS = (16, 32)
 LITE_MMA_THREADS, LITE_MMA_XG_PAD = 256, 4
 # the tensor-core wide forward: the widths and row tiles it is instantiated
-# for (at 288, whose unit groups split unevenly over the cluster, a second
-# kernel with tiles of at most 4 (group, n8 tile) items a warp), and
-# threads a block
-FWD_WIDE_MMA_WIDTHS, FWD_WIDE_MMA_ROWS = (128, 256, 288), (16, 32, 40, 64, 80)
+# for (at 160, 192, 224 and 288, H % 128 != 0, whose unit groups do not
+# split evenly over the cluster's blocks and their 8 warps, a second kernel
+# with tiles of at most 4 (group, n8 tile) items a warp), and threads a block
+FWD_WIDE_MMA_WIDTHS, FWD_WIDE_MMA_ROWS = (128, 160, 192, 224, 256, 288), (16, 32, 40, 64, 80)
 FWD_WIDE_MMA_UNEVEN_ROWS = (16, 32, 40)
 FWD_WIDE_MMA_THREADS = 256
 # the f32 tensor-core wgrad (three tf32 passes): the tiles of the bf16 one,
@@ -382,8 +389,6 @@ _SIGNATURES = {
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
-    "bilstm_bwd_lite": ("bilstm_bwd_lite", [_I, _I] + [_P] * 11 + [_I] + [_P] * 3
-                        + [_I] * 6 + [_P, _P]),
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
@@ -455,9 +460,6 @@ _CONSTANTS = {
     "bilstm_fwd_wide": (("bilstm_fwd_wide_cluster", "bilstm_fwd_wide_max_threads",
                          "bilstm_fwd_wide_rows_mask"),
                         (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK)),
-    "bilstm_bwd_lite": (("bilstm_bwd_lite_cluster", "bilstm_bwd_lite_max_threads",
-                         "bilstm_bwd_lite_rows_mask", "bilstm_bwd_lite_pad"),
-                        (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK, WIDE_PAD)),
     "bilstm_gates_mma": (("bilstm_gates_mma_tile_m", "bilstm_gates_mma_tile_n",
                           "bilstm_gates_mma_tile_k", "bilstm_gates_mma_stages",
                           "bilstm_gates_mma_smem"),
@@ -506,9 +508,11 @@ _CONSTANTS = {
                                 (MMA_TILE, MMA_STAGES, REC_MMA_MAX_CHUNKS, MMA_MAX_H, MMA_PAD,
                                  REC_MMA_F32_PAD)),
     "bilstm_fwd_wide_mma": (("bilstm_fwd_wide_mma_cluster", "bilstm_fwd_wide_mma_threads",
-                             "bilstm_fwd_wide_mma_pad", "bilstm_fwd_wide_mma_uneven_rows"),
+                             "bilstm_fwd_wide_mma_pad", "bilstm_fwd_wide_mma_uneven_rows",
+                             "bilstm_fwd_wide_mma_uneven_widths"),
                             (WIDE_CLUSTER, FWD_WIDE_MMA_THREADS, MMA_PAD,
-                             sum(1 << (r // 8) for r in FWD_WIDE_MMA_UNEVEN_ROWS))),
+                             sum(1 << (r // 8) for r in FWD_WIDE_MMA_UNEVEN_ROWS),
+                             sum(1 << (h // 32) for h in FWD_WIDE_MMA_WIDTHS if h % 128))),
     "bilstm_wgrad_f32": (("bilstm_wgrad_f32_tile_m", "bilstm_wgrad_f32_tile_n",
                           "bilstm_wgrad_f32_tile_k", "bilstm_wgrad_f32_stages",
                           "bilstm_wgrad_f32_smem"),
@@ -894,12 +898,13 @@ def wgrad_check(E_parts: Sequence[int], H: int) -> None:
         )
 
 
-def _tensor_core_wgrad_check(name, takes, unit, E_parts, H, dtype) -> None:
-    if (dtype != takes or H <= 0 or H % unit or len(E_parts) not in (1, 2)
+def _tensor_core_wgrad_check(name, takes, unit, E_parts, H, dtype, parts=(1, 2)) -> None:
+    if (dtype != takes or H <= 0 or H % unit or len(E_parts) not in parts
             or any(e <= 0 or e % 8 for e in E_parts)):
+        counts = ", ".join(map(str, parts[:-1])) + f" or {parts[-1]}"
         raise ValueError(
-            f"{name} kernel takes {str(takes).replace('torch.', '')} with H % {unit} == 0 and 1 "
-            f"or 2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
+            f"{name} kernel takes {str(takes).replace('torch.', '')} with H % {unit} == 0 and "
+            f"{counts} input parts that are positive multiples of 8, got {dtype}, H={H}, "
             f"E_parts={list(E_parts)}")
 
 
@@ -907,8 +912,10 @@ def wgrad_mma_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or shape the tensor-core weight-gradient
     kernel (``csrc/bilstm_wgrad_mma.cu``) does not take: it takes bfloat16
     with H % 8 == 0 (its last 128-row gate tile masked where 4H is not a
-    multiple of 128) and 1 or 2 input parts that are multiples of 8 wide."""
-    _tensor_core_wgrad_check("bilstm_wgrad_mma", torch.bfloat16, 8, E_parts, H, dtype)
+    multiple of 128) and 1 or 2 input parts that are multiples of 8 wide,
+    or none: ``dW_hh`` alone (``bilstm_wgrad_split``)."""
+    _tensor_core_wgrad_check("bilstm_wgrad_mma", torch.bfloat16, 8, E_parts, H, dtype,
+                             (0, 1, 2))
 
 
 def wgrad_f32_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
@@ -947,7 +954,8 @@ def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
     """``(m_tiles, n_tiles, splits)`` of the tensor-core wgrad launch (bf16
     and f32: the same tiles): 128-row tiles of the 4H gates (the last one
     partly past 4H where H % 32 != 0), 128-column tiles of the E + H source
-    columns, and the split of each group's T * B / G rows that brings the
+    columns (H alone with no input part: ``dW_hh`` alone), and the split of
+    each group's T * B / G rows that brings the
     grid to about ``WGRAD_TARGET_BLOCKS`` blocks, no more splits than
     K-tiles."""
     m_tiles = -(-4 * H // WGRAD_MMA_TILE_M)
@@ -1010,9 +1018,10 @@ def _route_at(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The route that takes the layer at exactly these widths: ``"resident"``
     where a resident forward and sweep take it (``fwd_kernel``,
     ``sweep_kernel``: the layer's weights in one block's shared memory),
-    else ``"wide"`` where ``wide_check`` passes; either only where a
-    weight-gradient kernel takes it too (``wgrad_kernel``). ValueError
-    naming the refusals otherwise."""
+    else ``"wide"`` where ``wide_check`` passes and a lite sweep takes H
+    (``lite_kernel``: not 32 or 64, whose layers, E far past H, take a
+    padded shape); either only where a weight-gradient kernel takes it too
+    (``wgrad_kernel``). ValueError naming the refusals otherwise."""
     try:
         fwd_kernel(E_parts, H, dtype)
         sweep_kernel(E_parts, H, dtype)
@@ -1020,6 +1029,7 @@ def _route_at(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     except ValueError as resident:
         try:
             wide_check(H, E_parts)
+            lite_kernel(H, dtype)
         except ValueError as wide:
             raise ValueError(f"{resident}; {wide}") from None
         route = "wide"
@@ -1196,10 +1206,9 @@ def lite_kernel(H: int, dtype: torch.dtype) -> str:
     ``lite_f32_check`` passes (f32 at those widths),
     ``"bilstm_bwd_lite_f32_resident"`` where ``lite_f32_resident_plan``
     takes it (f32 at 96), ``"bilstm_bwd_lite_mma_resident"`` where
-    ``lite_mma_resident_plan`` takes it (bf16 at 96), else
-    ``"bilstm_bwd_lite"`` where ``wide_check`` passes (the widths the
-    tensor-core sweeps do not take: 32 and 64, which no layer runs wide);
-    ValueError naming the refusals otherwise."""
+    ``lite_mma_resident_plan`` takes it (bf16 at 96); ValueError naming the
+    four refusals otherwise (32 and 64 among them: ``_route_at`` runs no
+    layer wide there)."""
     refusals = []
     for name, check in (("bilstm_bwd_lite_mma", lite_mma_check),
                         ("bilstm_bwd_lite_f32", lite_f32_check),
@@ -1210,22 +1219,18 @@ def lite_kernel(H: int, dtype: torch.dtype) -> str:
             return name
         except ValueError as e:
             refusals.append(str(e))
-    try:
-        if dtype not in _DTYPE_CODES:
-            raise ValueError(f"bilstm_bwd_lite kernel takes float32 or bfloat16, got {dtype}")
-        wide_check(H)
-    except ValueError as cores:
-        raise ValueError("; ".join([str(cores)] + refusals)) from None
-    return "bilstm_bwd_lite"
+    raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel takes H={H} in {dtype}; "
+                     + "; ".join(refusals))
 
 
 def fwd_wide_mma_check(H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or width the tensor-core wide forward
     (``csrc/bilstm_fwd_wide_mma.cu``) does not take: it takes bfloat16 at
     H in ``FWD_WIDE_MMA_WIDTHS``: 128 and 256 (whole 8-unit groups in each
-    of the cluster's 8 blocks, and its 8 warps evenly over them) and 288
-    (an instance for 4 or 5 groups a block, its (group, n8 tile) items
-    dealt over the 8 warps)."""
+    of the cluster's 8 blocks, and its 8 warps evenly over them) and 160,
+    192, 224 and 288 (a second kernel, its instances for 2 / 3, 3, 3 / 4 and
+    4 / 5 groups a block, its (group, n8 tile) items dealt over the 8
+    warps)."""
     if dtype != torch.bfloat16 or H not in FWD_WIDE_MMA_WIDTHS:
         raise ValueError(
             f"bilstm_fwd_wide_mma kernel takes bfloat16 with H in {list(FWD_WIDE_MMA_WIDTHS)}, "
@@ -1267,12 +1272,13 @@ def fwd_wide_mma_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
 def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
-    (bf16, H = 128, 256 or 288), ``"bilstm_fwd_wide_f32"`` where
+    (bf16, H = 128-288 in steps of 32), ``"bilstm_fwd_wide_f32"`` where
     ``fwd_wide_f32_check`` passes (f32 at 128-288),
     ``"bilstm_fwd_wide_mma_resident"`` where ``fwd_wide_mma_resident_plan``
     takes it (bf16 at 96), else ``"bilstm_fwd_wide"`` where ``wide_check``
-    passes (the widths the tensor-core forwards do not take: f32 at 96, bf16
-    at 160, 192 and 224); ValueError naming the refusals otherwise."""
+    passes (the widths the tensor-core forwards do not take: f32 at 96, and
+    32 and 64, which no layer runs wide); ValueError naming the refusals
+    otherwise."""
     refusals = []
     for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
                         ("bilstm_fwd_wide_f32", fwd_wide_f32_check),
@@ -1291,20 +1297,19 @@ def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     return "bilstm_fwd_wide"
 
 
-# the widths where the CUDA-core wide forward and lite sweep lost to a
-# tensor-core kernel timed in turns: refused by name too (``kernel=``); the
-# other widths up to WIDE_SMALL_THREADS stay by name, to time them beside
-# the kernels that took them (the forward f32 at 160-224 and bf16 at 128
-# and 256, the sweep bf16 at 128 and 160-256)
+# the widths where the CUDA-core wide forward lost to a tensor-core kernel
+# timed in turns: refused by name too (``kernel=``); the other widths up to
+# WIDE_SMALL_THREADS stay by name, to time them beside the kernels that took
+# them (bf16 at 128 and 256)
 CUDA_CORE_WIDE_RETIRED = {
-    "bilstm_fwd_wide": {torch.float32: (128, 256), torch.bfloat16: (96,)},
-    "bilstm_bwd_lite": {torch.float32: (96, 128, 160, 192, 224, 256), torch.bfloat16: (96,)},
+    "bilstm_fwd_wide": {torch.float32: (128, 160, 192, 224, 256),
+                        torch.bfloat16: (96, 160, 192, 224)},
 }
 
 
 def cuda_core_wide_check(name: str, H: int, dtype: torch.dtype) -> None:
     """ValueError where the CUDA-core ``csrc/<name>.cu`` (``name``
-    "bilstm_fwd_wide" or "bilstm_bwd_lite") asked for by name is refused: past
+    "bilstm_fwd_wide") asked for by name is refused: past
     ``WIDE_SMALL_THREADS`` units and at the widths of
     ``CUDA_CORE_WIDE_RETIRED``."""
     retired = CUDA_CORE_WIDE_RETIRED[name]
@@ -1338,9 +1343,9 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     units. ``kind`` "fwd_mma" (the
     tensor-core forward, a row tile of ``rows``): the bf16 slice and, per
     row, two bf16 h tiles and the block's new h and c staged (both variants
-    take the same, so they take the same tile; at H = 288, the instance for
-    uneven groups, every per-block width sized for the block of
-    ceil(H / 64) groups). ``kind`` "rec_fwd_mma" and
+    take the same, so they take the same tile; at H % 128 != 0 (160, 192,
+    224, 288), the kernel for uneven groups, every per-block width sized for
+    the block of ceil(H / 64) groups). ``kind`` "rec_fwd_mma" and
     "rec_bwd_mma": the recurrence op's bf16 tensor-core kernels past 288
     (``recurrence_wide_mma_smem``); "rec_bwd_f32": its f32 tensor-core
     sweep and forward past 288 (``recurrence_wide_f32_smem``). At H = 160,
@@ -1374,7 +1379,7 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
     U = H // WIDE_CLUSTER
     if kind == "fwd_mma":
         BR, pad = rows, MMA_PAD
-        if H % 64:
+        if H % 128:
             U = 8 * -(-H // 64)
         return 4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2 + 2 * BR * (U + pad) * 2
     if kind in ("lite_mma", "lite_mma_uneven"):
@@ -1406,7 +1411,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
     ``LITE_MMA_UNEVEN_ROWS`` there at H % 128 != 0 and for "lite_mma_uneven",
     ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
-    H = 288), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
+    H % 128 != 0), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
     "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32",
     ``REC_WIDE_F32_FWD_ROWS`` at H for "rec_fwd_f32", ``LITE_F32_ROWS`` for
     "lite_f32", ``fwd_wide_f32_rows(H)`` for "fwd_f32")
@@ -1415,7 +1420,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
             "lite_mma_uneven": LITE_MMA_UNEVEN_ROWS,
-            "fwd_mma": FWD_WIDE_MMA_ROWS if H % 64 == 0 else FWD_WIDE_MMA_UNEVEN_ROWS,
+            "fwd_mma": FWD_WIDE_MMA_ROWS if H % 128 == 0 else FWD_WIDE_MMA_UNEVEN_ROWS,
             }.get(kind, WIDE_ROWS)
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
@@ -1443,7 +1448,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
 _cluster_counts: Dict[tuple, int] = {}
 # the operands between (dtype, rows_per_thread) and (T, B, H, G, tiles,
 # smem) of each wide kernel's C entry, when it only reports occupancy
-_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9, "bilstm_bwd_lite": [None] * 11 + [0] + [None] * 3,
+_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9,
                 "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
                 "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1],
@@ -2163,7 +2168,7 @@ def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups):
     name = wrapper.__name__
     cd = dgc.dtype
     dev = dgc.device
-    T, B = x_parts[0].shape[:2]
+    T, B = hs_f.shape[:2]
     H = hs_f.shape[-1]
     G = groups
     E_parts = [p.shape[-1] for p in x_parts]
@@ -2187,7 +2192,7 @@ def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups):
     with torch.cuda.device(dev):
         err = getattr(_kernels(name), name)(
             dgc.data_ptr(), _ptr(x_parts, 0), _ptr(x_parts, 1),
-            E_parts[0], E_parts[1] if len(E_parts) == 2 else 0,
+            *(list(E_parts) + [0, 0])[:2],
             hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
             T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -2207,7 +2212,9 @@ def bilstm_wgrad_mma(
     """One layer's weight gradients on the tensor cores
     (``csrc/bilstm_wgrad_mma.cu``); the contract of :func:`bilstm_wgrad`.
     Takes the shapes ``wgrad_mma_check`` takes (bfloat16, H % 8 == 0) and
-    raises for the rest. Every block writes its partial tile, an empty row
+    raises for the rest; with no input part (``x_parts`` empty) it computes
+    ``dW_hh`` alone, and ``dW_ih`` is ``(2, 4H, 0)``. Every block writes its
+    partial tile, an empty row
     range included, so the ``torch.empty`` partials are whole; an empty
     batch returns zeros. Its outputs carry no graph, so under grad mode it
     refuses an operand that requires grad, on the CPU too."""
@@ -2238,6 +2245,72 @@ def bilstm_wgrad_f32(
 
 
 bilstm_wgrad_f32.launches = 0
+
+
+def bilstm_wgrad_ih(dgc: torch.Tensor, x_parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``dW_ih (2, 4H, E)`` f32, ``dW_ih[d] = sum_{t, b} dgc[d, t, b] (x)
+    x[t, b]`` over the input parts' columns: the JAX lite mode's ``dW_ih``
+    GEMMs (``lstm_pallas_layer.py:1091-1108``, bf16 operands with
+    ``preferred_element_type=f32``), left to XLA there and to cuBLAS here.
+    On the card one bf16 product with f32 output (``torch.mm(...,
+    out_dtype=torch.float32)``) per direction and input part: ``dgc[d]``
+    transposed and each part are views of the streams as they lie, so no
+    operand is copied; each product fills its part's columns. Takes
+    bfloat16 and raises for the rest; ``.launches`` counts its calls (one a
+    layer). On the CPU the plain f32 sums. Its output carries no graph, so
+    under grad mode it refuses an operand that requires grad, on the CPU
+    too."""
+    x_parts = tuple(x_parts)
+    _no_graph(dgc, *x_parts)
+    E_parts = [p.shape[-1] for p in x_parts]
+    if not dgc.is_cuda:
+        x = torch.cat([p.float() for p in x_parts], dim=-1)
+        return torch.einsum("dtbg,tbe->dge", dgc.float(), x)
+    if dgc.dtype != torch.bfloat16 or not x_parts:
+        raise ValueError(f"bilstm_wgrad_ih takes bfloat16 and 1 or more input parts, got "
+                         f"{dgc.dtype}, E_parts={E_parts}")
+    dev = dgc.device
+    _, T, B, H4 = dgc.shape
+    _check("dgc", dgc, (2, T, B, H4), torch.bfloat16, dev)
+    for k, p in enumerate(x_parts):
+        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), torch.bfloat16, dev)
+    dw_ih = torch.empty((2, H4, sum(E_parts)), dtype=torch.float32, device=dev)
+    if T * B == 0:
+        return dw_ih.zero_()
+    d = dgc.view(2, T * B, H4)
+    col = 0
+    for p, e in zip(x_parts, E_parts):
+        x = p.view(T * B, e)
+        for k in range(2):
+            dw_ih[k, :, col:col + e] = torch.mm(d[k].t(), x, out_dtype=torch.float32)
+        col += e
+    bilstm_wgrad_ih.launches += 1
+    return dw_ih
+
+
+bilstm_wgrad_ih.launches = 0
+
+
+def bilstm_wgrad_split(
+    dgc: torch.Tensor,
+    x_parts: Sequence[torch.Tensor],
+    hs_f: torch.Tensor,
+    hs_b: torch.Tensor,
+    groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 wide route's weight gradients, split as the JAX lite mode
+    splits them; the contract of :func:`bilstm_wgrad`. On the card ``dW_ih``
+    from :func:`bilstm_wgrad_ih` (cuBLAS) and ``dW_hh`` from
+    :func:`bilstm_wgrad_mma` with no input part (its ``.launches`` counts
+    it); the shapes ``wgrad_mma_check`` takes, raising for the rest. On the
+    CPU the plain ``bidir_layer_wgrad``."""
+    x_parts = tuple(x_parts)
+    if not dgc.is_cuda:
+        return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
+    wgrad_mma_check([p.shape[-1] for p in x_parts], hs_f.shape[-1], dgc.dtype)
+    dw_ih = bilstm_wgrad_ih(dgc, x_parts)
+    _, dw_hh = bilstm_wgrad_mma(dgc, (), hs_f, hs_b, groups)
+    return dw_ih, dw_hh
 
 
 def bilstm_gates(
@@ -2426,12 +2499,11 @@ def bilstm_fwd_wide(
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
     its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
-    (bf16 at H = 128, 256 and 288), :func:`bilstm_fwd_wide_f32` (f32 at
-    128-288) or :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their
-    ``.launches`` then count them), or ``csrc/bilstm_fwd_wide.cu`` here.
-    ``kernel="bilstm_fwd_wide"`` asks for the latter by name in bf16 at 128
-    and 256 and in f32 at 160, 192 and 224 (to time it beside the others);
-    it takes no width past 256, not bf16 at 96 and not f32 at 128 or 256.
+    (bf16 at H = 128-288), :func:`bilstm_fwd_wide_f32` (f32 at 128-288) or
+    :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their ``.launches``
+    then count them), or ``csrc/bilstm_fwd_wide.cu`` here (f32 at 96).
+    ``kernel="bilstm_fwd_wide"`` asks for the latter by name at the widths
+    ``cuda_core_wide_check`` leaves it (to time it beside the others).
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
@@ -2482,7 +2554,7 @@ def bilstm_fwd_wide_mma(
     """One layer's recurrence over its input gates on the tensor cores
     (``csrc/bilstm_fwd_wide_mma.cu``), eval variant; the contract of
     :func:`bilstm_fwd_wide`. Takes the widths ``fwd_wide_mma_check`` takes
-    (bfloat16, H = 128, 256 and 288) and raises for the rest; the row tile is
+    (bfloat16, H = 128-288 in steps of 32) and raises for the rest; the row tile is
     ``wide_plan("fwd_mma", ...)``'s. Its outputs carry no graph, so under
     grad mode it refuses an operand that requires grad, on the CPU too."""
     return _fwd_wide_mma(bilstm_fwd_wide_mma, xg, lengths, w_hh, compute_dtype, False)
@@ -2649,53 +2721,24 @@ def bilstm_bwd_lite(
     (2, T, B, 4H)`` f32.
 
     On the card the sweep runs the kernel ``lite_kernel`` names for its
-    width and dtype: a tensor-core one through :func:`bilstm_bwd_lite_mma`
-    (bf16 at H = 128-288), :func:`bilstm_bwd_lite_f32` (f32 there),
-    :func:`bilstm_bwd_lite_f32_resident` (f32 at 96) or
-    :func:`bilstm_bwd_lite_mma_resident` (bf16 at 96; their ``.launches``
-    then count them), or ``csrc/bilstm_bwd_lite.cu`` here.
-    ``kernel="bilstm_bwd_lite"`` asks for the latter by name in bf16 at 128,
-    160, 192, 224 and 256 (to time it beside the others); it takes no width
-    past 256, not bf16 at 96 and no f32 width a tensor-core sweep takes
-    (96-256)."""
+    width and dtype (``kernel`` names one of them instead; another name is
+    refused, on the CPU too): a tensor-core one through :func:`bilstm_bwd_lite_mma` (bf16 at H = 128-288),
+    :func:`bilstm_bwd_lite_f32` (f32 there), :func:`bilstm_bwd_lite_f32_resident`
+    (f32 at 96) or :func:`bilstm_bwd_lite_mma_resident` (bf16 at 96), whose
+    ``.launches`` counts it; a width none takes raises."""
     dyf, dyb = tuple(dyf), tuple(dyb)
     cd = compute_dtype
+    kernels = {"bilstm_bwd_lite_mma": bilstm_bwd_lite_mma,
+               "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32,
+               "bilstm_bwd_lite_f32_resident": bilstm_bwd_lite_f32_resident,
+               "bilstm_bwd_lite_mma_resident": bilstm_bwd_lite_mma_resident}
+    if kernel not in (None, *kernels):
+        raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
     if not xg.is_cuda:
         return bidir_layer_sweep_lite(xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb,
                                       dhn, dcn, cd)
-    tensor_core = {"bilstm_bwd_lite_mma": bilstm_bwd_lite_mma,
-                   "bilstm_bwd_lite_f32": bilstm_bwd_lite_f32,
-                   "bilstm_bwd_lite_f32_resident": bilstm_bwd_lite_f32_resident,
-                   "bilstm_bwd_lite_mma_resident": bilstm_bwd_lite_mma_resident}
-    if kernel not in (None, "bilstm_bwd_lite", *tensor_core):
-        raise ValueError(f"bilstm_bwd_lite: no lite sweep kernel named {kernel!r}")
     kernel = kernel or lite_kernel(xg.shape[-1] // 4, cd)
-    if kernel in tensor_core:
-        return tensor_core[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn,
-                                   dcn, cd)
-    cuda_core_wide_check("bilstm_bwd_lite", xg.shape[-1] // 4, cd)
-    dev, T, B, H, G, w_hh = _lite_operands("bilstm_bwd_lite", xg, lengths, w_hh, hs_f, hs_b,
-                                           cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
-    dgates = torch.empty((2, T, B, 4 * H), dtype=torch.float32, device=dev)
-    if B * T == 0:
-        return dgates
-    R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters("bilstm_bwd_lite", cd, H, dev))
-
-    with torch.cuda.device(dev):
-        err = _kernels("bilstm_bwd_lite").bilstm_bwd_lite(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(),
-            hs_f.data_ptr(), hs_b.data_ptr(), cs_f.data_ptr(), cs_b.data_ptr(),
-            _ptr(dyf, 0), _ptr(dyf, 1), _ptr(dyb, 0), _ptr(dyb, 1), len(dyf),
-            None if dhn is None else dhn.data_ptr(), None if dcn is None else dcn.data_ptr(),
-            dgates.data_ptr(), T, B, H, G, tiles, smem,
-            torch.cuda.current_stream(dev).cuda_stream, None,
-        )
-    _raise_on_error("bilstm_bwd_lite", err)
-    bilstm_bwd_lite.launches += 1
-    return dgates
-
-
-bilstm_bwd_lite.launches = 0
+    return kernels[kernel](xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
 
 
 def bilstm_bwd_lite_mma(
@@ -3008,7 +3051,9 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
     The sweep is ``bilstm_bwd`` (resident) or, on the wide route, the input
     gates recomputed with the forward's kernel (the same dispatch, so the
     same f32 bits), the lite sweep, and dx, ``dgc`` and ``dbias`` from
-    ``ops/lstm.py:input_grads``; then ``bilstm_wgrad``. A padded layer's
+    ``ops/lstm.py:input_grads``; then ``bilstm_wgrad`` (in bf16 on the wide
+    route ``bilstm_wgrad_split``: ``dW_ih`` on cuBLAS, as the JAX lite mode
+    leaves it to XLA, and ``dW_hh`` on ``bilstm_wgrad_mma``). A padded layer's
     states and cotangents are grown back to Hp units by zeros (the padded
     units' values: ``pad_layer``), and its dx parts, ``dW_ih`` columns and
     gradients are cut back to the true widths."""
@@ -3028,7 +3073,9 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
                                  compute_dtype)
         dxf, dxb, dgc, dbias = input_grads(dgates, w_ih, Ep)
         del dgates
-    dw_ih, dw_hh = bilstm_wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
+    wgrad = (bilstm_wgrad_split if route == "wide" and compute_dtype == torch.bfloat16
+             else bilstm_wgrad)
+    dw_ih, dw_hh = wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
     if Ep != E_parts:
         dxf, dxb = (tuple(t[..., :e].contiguous() for t, e in zip(ts, E_parts))
                     for ts in (dxf, dxb))

@@ -55,7 +55,7 @@ def test_every_kernel_source_is_built_and_bound():
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad",
-                       "bilstm_fwd_wide", "bilstm_bwd_lite", "lstm_recurrence_fwd",
+                       "bilstm_fwd_wide", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
@@ -170,11 +170,10 @@ def test_every_kernel_source_is_built_and_bound():
     assert "gate_mma_f32<" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, and 288 where a route takes 257-288 units in the dtype:
-    # the recurrence op in both, the wide forward and the lite sweep in
-    # neither); none reads its weight slice from a global copy
+    # the recurrence op in both, the wide forward in neither); none reads its
+    # weight slice from a global copy
     for name, dispatch in (
             ("bilstm_fwd_wide", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
-            ("bilstm_bwd_lite", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
             ("lstm_recurrence_fwd", "dispatch_wide("), ("lstm_recurrence_bwd", "dispatch_wide(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert dispatch in text and "wl" not in text.split(), name

@@ -190,7 +190,7 @@ def test_wide_wrappers_take_plain_versions_on_cpu():
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_fwd_wide_train)
     counts = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, torch.float32)
     assert xg.shape == (2, 6, 4, 128) and xg.dtype == torch.float32
@@ -1521,7 +1521,8 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
         # tile) items dealt over 8 warps (ids kept from the CUDA-core sweep's cases)
         pytest.param(192, torch.bfloat16, "bilstm_bwd_lite_mma", id="192-dtype8-bilstm_bwd_lite"),
         (96, torch.bfloat16, "bilstm_bwd_lite_mma_resident"),  # W_hh resident in one block
-        (32, torch.bfloat16, "bilstm_bwd_lite"),
+        # 32 and 64: no lite sweep since csrc/bilstm_bwd_lite.cu went (ids kept)
+        pytest.param(32, torch.bfloat16, None, id="32-dtype10-bilstm_bwd_lite"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_bwd_lite_f32"),  # 4 or 5 unit groups a block
         (288, torch.bfloat16, "bilstm_bwd_lite_mma"),  # 4 or 5 unit groups a block
@@ -1533,7 +1534,7 @@ def test_gates_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
                      id="224-dtype17-bilstm_bwd_lite"),
         (256, torch.bfloat16, "bilstm_bwd_lite_mma"),
         (128, torch.float32, "bilstm_bwd_lite_f32"),
-        (64, torch.bfloat16, "bilstm_bwd_lite"),  # no layer runs wide at 32 or 64
+        pytest.param(64, torch.bfloat16, None, id="64-dtype20-bilstm_bwd_lite"),
     ],
 )
 def test_lite_kernel_by_width_and_dtype(H, dtype, kernel):
@@ -1586,9 +1587,8 @@ def test_tensor_core_wide_kernels_change_no_route(dtype):
             assert gates == ("bilstm_gates_mma" if bf16 else "bilstm_gates_f32")
             assert lite == ("bilstm_bwd_lite_f32_resident" if (H, bf16) == (96, False)
                             else "bilstm_bwd_lite_mma_resident" if H == 96
-                            else "bilstm_bwd_lite_f32" if not bf16 and H % 32 == 0 and H >= 128
-                            else "bilstm_bwd_lite" if not bf16 or H % 32 or H < 128
-                            else "bilstm_bwd_lite_mma")
+                            else "bilstm_bwd_lite_mma" if bf16 else "bilstm_bwd_lite_f32")
+            assert H >= 96, (E_parts, H0)  # no layer runs wide at 32 or 64
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
 
@@ -1624,8 +1624,7 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [128], 128, 2, cd, torch.device("cpu"))
-    wrappers = (lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite,
-                lstm_cuda.bilstm_bwd_lite_mma)
+    wrappers = (lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma)
     before = [f.launches for f in wrappers]
     want = input_gates(parts, w_ih, bias, cd)
     for got in (lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd),
@@ -1634,9 +1633,10 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(want, lengths, w_hh, cd, with_states=True)
     args = (want, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
     ref = bidir_layer_sweep_lite(*args)
-    for got in (lstm_cuda.bilstm_bwd_lite_mma(*args),
-                lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")):
+    for got in (lstm_cuda.bilstm_bwd_lite_mma(*args), lstm_cuda.bilstm_bwd_lite(*args)):
         assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.bilstm_gates_mma(parts, w_ih.clone().requires_grad_(), bias, cd)
@@ -1656,7 +1656,9 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (128, torch.bfloat16, "bilstm_fwd_wide_mma"),
         (256, torch.float32, "bilstm_fwd_wide_f32"),  # three tf32 passes
         (128, torch.float32, "bilstm_fwd_wide_f32"),
-        (192, torch.bfloat16, "bilstm_fwd_wide"),  # 8 warps not even over 3 unit groups
+        # bf16 at 160-224: the kernel for uneven unit groups (ids kept from the
+        # cluster kernel's cases); at 192 8 warps are not even over 3 groups a block
+        pytest.param(192, torch.bfloat16, "bilstm_fwd_wide_mma", id="192-dtype4-bilstm_fwd_wide"),
         # bf16 at 96: one block, W_hh in registers (id kept from the cluster kernel's case)
         pytest.param(96, torch.bfloat16, "bilstm_fwd_wide_mma_resident",
                      id="96-dtype5-bilstm_fwd_wide"),
@@ -1667,12 +1669,14 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (320, torch.float32, None),
         (256, torch.float16, None),
         (96, torch.float32, "bilstm_fwd_wide"),  # f32 at 96 keeps the cluster kernel
-        (160, torch.bfloat16, "bilstm_fwd_wide"),
+        pytest.param(160, torch.bfloat16, "bilstm_fwd_wide_mma",
+                     id="160-dtype13-bilstm_fwd_wide"),
         # f32 at 160-224: the f32 tensor-core forward's instances for 2 / 3, 3
         # and 3 / 4 unit groups a block (id kept from the cluster kernel's case)
         pytest.param(224, torch.float32, "bilstm_fwd_wide_f32", id="224-dtype14-bilstm_fwd_wide"),
         (160, torch.float32, "bilstm_fwd_wide_f32"),
         (192, torch.float32, "bilstm_fwd_wide_f32"),
+        (224, torch.bfloat16, "bilstm_fwd_wide_mma"),
     ],
 )
 def test_wide_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
@@ -1708,7 +1712,7 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
                     "bilstm_fwd_wide_mma_resident" if (H, bf16) == (96, True)
                     else "bilstm_fwd_wide_f32" if not bf16 and H % 32 == 0 and H >= 128
-                    else "bilstm_fwd_wide" if H not in (128, 256, 288)
+                    else "bilstm_fwd_wide" if not bf16
                     else "bilstm_fwd_wide_mma")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
             if H % 32 == 0 or (bf16 and H % 8 == 0):
@@ -1785,7 +1789,7 @@ def test_fwd_wide_mma_plan_at_288():
     assert lstm_cuda.wide_smem("fwd_mma", 256, 80) == 164864
     assert lstm_cuda.wide_smem("fwd_mma", 128, 80) == 68608
     lstm_cuda.fwd_wide_mma_check(288, torch.bfloat16)
-    for H, dtype in ((288, torch.float32), (320, torch.bfloat16), (192, torch.bfloat16),
+    for H, dtype in ((288, torch.float32), (320, torch.bfloat16), (64, torch.bfloat16),
                      (96, torch.bfloat16)):
         with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
             lstm_cuda.fwd_wide_mma_check(H, dtype)
@@ -2070,7 +2074,7 @@ def test_lite_f32_resident_wrapper_takes_plain_version_on_cpu(ny):
     xg = input_gates(parts, w_ih, bias, cd)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident,)
     before = [f.launches for f in wrappers]
     want = bidir_layer_sweep_lite(*args)
     assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32_resident(*args), want)
@@ -2154,12 +2158,13 @@ def test_lite_mma_resident_wrapper_takes_plain_version_on_cpu(ny):
     xg = input_gates(parts, w_ih, bias, cd)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident,)
     before = [f.launches for f in wrappers]
     want = bidir_layer_sweep_lite(*args)
     assert torch.equal(lstm_cuda.bilstm_bwd_lite_mma_resident(*args), want)
     assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args), want)
-    assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite"), want)
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.bilstm_bwd_lite_mma_resident(xg.clone().requires_grad_(), *args[1:])
@@ -2275,9 +2280,9 @@ def test_fwd_wide_mma_resident_plan_and_dispatch():
     registers (2 m16 tiles x 6 k16 steps x 4 = 48 a thread); shared memory
     for two bf16 h tiles (8 rows of 104) and five ring stages of the f32 xg
     tile (8 rows of 388): 3,328 + 62,080 = 65,408 bytes; 100 blocks at 400
-    rows in one group. f32 at 96 and bf16 at 160-224 keep the CUDA-core
-    cluster kernel (f32 at 160-224 takes the f32 tensor-core one); no layer
-    changes route or padded shape."""
+    rows in one group. f32 at 96 keeps the CUDA-core cluster kernel (160-224
+    take the tensor-core ones, f32 and bf16); no layer changes route or
+    padded shape."""
     f32, bf16 = torch.float32, torch.bfloat16
     threads, smem = lstm_cuda.fwd_wide_mma_resident_plan(96, bf16)
     assert threads == 384 == 4 * 96 and 2 * 4 * 6 * 4 // 4 == 48
@@ -2289,7 +2294,7 @@ def test_fwd_wide_mma_resident_plan_and_dispatch():
     assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide"
     for H in (160, 192, 224):
         assert lstm_cuda.wide_fwd_kernel(H, f32) == "bilstm_fwd_wide_f32"
-        assert lstm_cuda.wide_fwd_kernel(H, bf16) == "bilstm_fwd_wide"
+        assert lstm_cuda.wide_fwd_kernel(H, bf16) == "bilstm_fwd_wide_mma"
     for H, dtype in ((96, f32), (128, bf16), (160, bf16), (64, bf16), (80, bf16)):
         with pytest.raises(ValueError, match="bilstm_fwd_wide_mma_resident kernel takes bfloat16"):
             lstm_cuda.fwd_wide_mma_resident_plan(H, dtype)
@@ -2433,9 +2438,10 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     leave short row tiles inside each group. The gates are the tensor-core
     kernels (in f32 three tf32 passes), and at H = 128 and 256 the forward
     and the sweep are too, counted on their own wrappers; the CUDA-core
-    forward and lite sweep are held by name too in bf16 (in f32 at 128 and
-    256 both refuse by name); in f32 wgrad is the 3xTF32 kernel at every
-    width here."""
+    forward is held by name too in bf16 (in f32 at 128 and 256 it refuses
+    by name); at H = 32, where no layer runs wide, the lite sweep refuses
+    (its CUDA-core kernel is gone) and nothing falls back; in f32 wgrad is
+    the 3xTF32 kernel at every width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -2448,7 +2454,7 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
                 1.0, float(b.float().abs().max()))
 
     wrappers = (lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_fwd_wide_train,
                 lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
                 lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32,
@@ -2458,8 +2464,9 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, dtype)
     close([xg], [input_gates(parts, w_ih, bias, dtype)])
     gates_mma = lstm_cuda.gates_kernel(E_parts, H, dtype) == "bilstm_gates_mma"
-    lite_mma = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_mma"
-    lite_f32 = lstm_cuda.lite_kernel(H, dtype) == "bilstm_bwd_lite_f32"
+    lite = lstm_cuda.lite_kernel(H, dtype) if H >= 96 else None  # none at 32
+    lite_mma = lite == "bilstm_bwd_lite_mma"
+    lite_f32 = lite == "bilstm_bwd_lite_f32"
     fwd_mma = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma"
     fwd_f32 = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_f32"
     assert gates_mma == (dtype == torch.bfloat16)
@@ -2482,19 +2489,20 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     ny = 2 if len(E_parts) == 1 else 1
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
     dgates = bidir_layer_sweep_lite(*args)
-    close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
-    if lite_mma:
-        close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [dgates])
-    if lite_f32:
-        with pytest.raises(ValueError, match="and f32 outside"):
-            lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
+    if H < 96:
+        with pytest.raises(ValueError, match=f"no lite sweep kernel takes H={H}"):
+            lstm_cuda.bilstm_bwd_lite(*args)
+    else:
+        close([lstm_cuda.bilstm_bwd_lite(*args)], [dgates])
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     dgc = dgates.to(dtype)
     close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
           bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        int(not fwd_f32), int(not fwd_f32), int(not lite_f32), int(gates_mma), int(lite_mma),
+        int(not fwd_f32), int(not fwd_f32), int(gates_mma), int(lite_mma),
         int(fwd_mma), int(fwd_mma), 0, int(bf16), int(not bf16), int(lite_f32),
         int(not gates_mma), int(fwd_f32), int(fwd_f32)]
 
@@ -2558,13 +2566,13 @@ def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
     torch.backends.cuda.matmul.allow_tf32 = False
     assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_train,
                 lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
                 lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, embedding_size=128)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 0, 2, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 2, 0, 0]
     want = model_grads(torch.device("cpu"), embedding_size=128)
     for name, grad in got.items():
         ref = want[name]
@@ -3657,7 +3665,7 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
     wrappers = (lstm_cuda.bilstm_bwd_f32_onestage, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd,
-                lstm_cuda.bilstm_bwd_lite, lstm_cuda.bilstm_bwd_lite_f32_resident,
+                lstm_cuda.bilstm_bwd_lite_f32_resident,
                 lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32,
                 lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident,
                 lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma_resident)
@@ -3665,7 +3673,7 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        int(f32), int(not f32), 0, 0, int(f32), 0, int(f32), int(not f32), int(not f32),
+        int(f32), int(not f32), 0, int(f32), 0, int(f32), int(not f32), int(not f32),
         int(f32), int(not f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
@@ -3725,8 +3733,7 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
         "bilstm_bwd_lite_f32" if f32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     for fwd in (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide):
         with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256"):
@@ -3734,10 +3741,10 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
-    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0]
     _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), want, tol)
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
 
@@ -3880,17 +3887,17 @@ def test_lite_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, B, r
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_mma"
     xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma,)
     before = [f.launches for f in wrappers]
     for ny, final in ((2, True), (1, False), (0, True), (2, False)):
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
                 dhn if final else None, dcn if final else None, cd)
         want = bidir_layer_sweep_lite(*args)
         _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
-    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4]
 
 
 @pytest.mark.cuda
@@ -3941,11 +3948,11 @@ def test_lite_mma_at_288_takes_the_model_layers_on_card(cuda_device, E_parts, G)
                                                        with_states=True)
     args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
             dhn, dcn, cd)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_wgrad_ih)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.layer_bwd(*args)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
     want = bidir_layer_bwd(*args)
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     _close(flat(got), flat(want), 3e-2)
@@ -4171,11 +4178,11 @@ def test_two_layer_model_at_embedding_272_on_card(cuda_device, dtype):
     sweeps the tensor-core lite sweep's; its gradients equal the CPU plain
     path's within 2^-7 x max(1, max|grad|)."""
     wrappers = (lstm_cuda.bilstm_fwd_wide_train_mma, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_wgrad_ih)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=272)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2, 2]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=272)
     for name, grad in got.items():
         ref = want[name].float()
@@ -4257,7 +4264,8 @@ def test_lite_f32_smem_and_plan(H, want):
 def test_lite_f32_wrapper_takes_plain_version_on_cpu(H, ny):
     """The f32 tensor-core lite sweep takes the plain twin for CPU tensors,
     counting no launch; ``bilstm_bwd_lite`` hands f32 at 128-288 to it only
-    on the card and reaches it and the CUDA-core sweep by name;
+    on the card and reaches it by name, and refuses the deleted CUDA-core
+    sweep's name;
     operands that require grad are refused. Its weight copy is the op
     sweep's layout of ``W_hh^T``: the fragment copy of ``w_hh`` transposed
     is that of the op's ``w``."""
@@ -4267,12 +4275,14 @@ def test_lite_f32_wrapper_takes_plain_version_on_cpu(H, ny):
     xg = input_gates(parts, w_ih, bias, cd)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, cd)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32,)
     before = [f.launches for f in wrappers]
     want = bidir_layer_sweep_lite(*args)
     assert torch.equal(lstm_cuda.bilstm_bwd_lite_f32(*args), want)
-    for kernel in (None, "bilstm_bwd_lite_f32", "bilstm_bwd_lite"):
+    for kernel in (None, "bilstm_bwd_lite_f32"):
         assert torch.equal(lstm_cuda.bilstm_bwd_lite(*args, kernel=kernel), want)
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.bilstm_bwd_lite_f32(xg, lengths, w_hh.clone().requires_grad_(), *args[3:])
@@ -4351,17 +4361,17 @@ def test_lite_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T, ro
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32"
     xg = input_gates(parts, w_ih, bias, cd)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32,)
     before = [f.launches for f in wrappers]
     for ny, final in ((2, True), (1, False), (0, True)):
         args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
                 dhn if final else None, dcn if final else None, cd)
         want = bidir_layer_sweep_lite(*args)
         _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
-    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3]
 
 
 @pytest.mark.cuda
@@ -4610,12 +4620,12 @@ def test_two_layer_model_at_embedding_272_f32_on_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
                 lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_bwd_lite)
+                lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=torch.float32, embedding_size=272)
     torch.cuda.synchronize()
     ran = [f.launches - b for f, b in zip(wrappers, before)]
-    assert min(ran[:3]) > 0 and ran[3:] == [0, 0, 0], ran
+    assert min(ran[:3]) > 0 and ran[3:] == [0, 0], ran
     want = model_grads(torch.device("cpu"), dtype=torch.float32, embedding_size=272)
     for name, grad in got.items():
         ref = want[name].float()
@@ -4700,8 +4710,7 @@ def test_lite_f32_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     9, 12 and 11 rows (short tiles inside each group), groups at lengths 0,
     1 and T, rows of length 0, 1 and T and rows 8-15 short of T (a tile
     that stops early). The dispatch names it and its wrapper counts the
-    launches; ``bilstm_bwd_lite.cu`` is not asked for by name there (refused:
-    the one-block sweep took its route)."""
+    launches; the deleted ``bilstm_bwd_lite.cu``'s name is refused."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd, H = torch.float32, 96
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
@@ -4714,14 +4723,14 @@ def test_lite_f32_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
             dhn if final else None, dcn if final else None, cd)
     want = bidir_layer_sweep_lite(*args)
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32_resident"
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32_resident,)
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
     _close([lstm_cuda.bilstm_bwd_lite_f32_resident(*args)], [want], 1e-4)
-    with pytest.raises(ValueError, match="and f32 outside"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2]
 
 
 @pytest.mark.cuda
@@ -4840,9 +4849,8 @@ def test_lite_mma_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
     cotangents, groups of 30, 13, 9, 12, 11 and 9 rows (short tiles inside
     each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
     and rows 8-15 short of T (a tile that stops early). The dispatch names
-    it and its wrapper counts the launches; ``bilstm_bwd_lite.cu`` asked for
-    by name is refused there (retired: the one-block sweep took bf16 at 96),
-    before any launch."""
+    it and its wrapper counts the launches; the deleted
+    ``bilstm_bwd_lite.cu``'s name is refused, before any launch."""
     cd, H = torch.bfloat16, 96
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                                 seed=T + B + 97)
@@ -4854,14 +4862,14 @@ def test_lite_mma_resident_matches_plain_on_card(cuda_device, T, G, B, ny, final
             dhn if final else None, dcn if final else None, cd)
     want = bidir_layer_sweep_lite(*args)
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_mma_resident"
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma_resident,)
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
     _close([lstm_cuda.bilstm_bwd_lite_mma_resident(*args)], [want], 3e-2)
-    with pytest.raises(ValueError, match="and bf16 outside"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2]
 
 
 @pytest.mark.cuda
@@ -4934,12 +4942,12 @@ def test_two_layer_model_at_embedding_72_on_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_mma,
                 lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_lite,
+                lstm_cuda.bilstm_bwd,
                 lstm_cuda.bilstm_fwd_wide_train_mma_resident, lstm_cuda.bilstm_fwd_wide_train)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=72)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 0, 1, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 1, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=72)
     for name, grad in got.items():
         ref = want[name].float()
@@ -4961,9 +4969,8 @@ def test_lite_f32_at_160_to_224_matches_plain_on_card(cuda_device, T, H, G, B, n
     cotangents, groups of 30, 13, 9, 12, 11 and 9 rows (short tiles inside
     each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
     and rows 8-15 short of T (a tile that stops early), at the plan's row
-    tile. The dispatch names it and its wrapper counts the launches;
-    ``bilstm_bwd_lite.cu`` asked for by name refuses f32 there (retired
-    after it lost in turns)."""
+    tile. The dispatch names it and its wrapper counts the launches; the
+    deleted ``bilstm_bwd_lite.cu``'s name is refused."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd = torch.float32
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
@@ -4976,14 +4983,14 @@ def test_lite_f32_at_160_to_224_matches_plain_on_card(cuda_device, T, H, G, B, n
             dhn if final else None, dcn if final else None, cd)
     want = bidir_layer_sweep_lite(*args)
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_f32"
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32,)
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 1e-4)
     _close([lstm_cuda.bilstm_bwd_lite_f32(*args)], [want], 1e-4)
-    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256, and f32 outside"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2]
 
 
 @pytest.mark.cuda
@@ -5029,15 +5036,15 @@ def test_lite_f32_at_160_at_the_main_path_shape_on_card(cuda_device):
 def test_lite_f32_at_160_rejects_bad_operands_on_card(cuda_device):
     """The f32 lite sweep refuses what its kernel does not take at 160,
     before any launch: bf16 operands, a bf16 stream, a weight of the wrong
-    shape; ``bilstm_bwd_lite.cu`` by name still refuses f32 at 128 and bf16
-    at 96; nothing falls back."""
+    shape; the deleted ``bilstm_bwd_lite.cu``'s name is refused at 128 and
+    96; nothing falls back."""
     cd, H = torch.float32, 160
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [H], H, 2, cd, cuda_device)
     xg = input_gates(parts, w_ih, bias, cd)
     hs = torch.zeros(4, 10, H, device=cuda_device)
     args = (xg, lengths, w_hh, hs, hs, hs, hs, dy[:1], dy[2:3], dhn, dcn, cd)
     wrapper = lstm_cuda.bilstm_bwd_lite_f32
-    before = [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches]
+    before = [wrapper.launches, lstm_cuda.bilstm_bwd_lite_f32_resident.launches]
     with pytest.raises(ValueError, match="bilstm_bwd_lite_f32 kernel takes float32"):
         wrapper(*args[:-1], torch.bfloat16)
     with pytest.raises(ValueError, match="hs_f must be a contiguous"):
@@ -5048,11 +5055,11 @@ def test_lite_f32_at_160_rejects_bad_operands_on_card(cuda_device):
         case = layer_case(4, 10, [width], width, 1, dtype, cuda_device)
         xw = input_gates(case[0], case[2], case[4], dtype)
         hw = bidir_recurrence(xw, case[1], case[3], dtype, with_states=True)
-        with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256, and f32 outside"):
+        with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
             lstm_cuda.bilstm_bwd_lite(xw, case[1], case[3], hw[0], hw[1], hw[4], hw[5], (), (),
                                       None, None, dtype, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches] == before
+    assert [wrapper.launches, lstm_cuda.bilstm_bwd_lite_f32_resident.launches] == before
 
 
 @pytest.mark.cuda
@@ -5155,12 +5162,13 @@ def test_two_layer_model_at_embedding_160_on_card(cuda_device):
     path's within 1e-4 x max(1, max|grad|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd = torch.float32
-    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_bwd_lite,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_f32)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_wgrad_f32,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_f32,
+                lstm_cuda.bilstm_wgrad_ih)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=160)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 0, 2]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 2, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=160)
     for name, grad in got.items():
         ref = want[name].float()
@@ -5209,9 +5217,10 @@ def test_lite_mma_at_160_to_224_plan_and_dispatch(H, smem16, smem32):
 
 @pytest.mark.parametrize("H", [160, 192, 224])
 def test_lite_mma_at_160_to_224_wrapper_takes_plain_version_on_cpu(H):
-    """On the CPU the bf16 tensor-core lite sweep at 160-224, the dispatch
-    and ``bilstm_bwd_lite.cu`` asked for by name run the plain twin bit for bit and launch nothing; under grad
-    mode the wrapper refuses an operand that requires grad."""
+    """On the CPU the bf16 tensor-core lite sweep at 160-224 and the
+    dispatch run the plain twin bit for bit and launch nothing; the deleted
+    ``bilstm_bwd_lite.cu`` asked for by name is refused; under grad mode the
+    wrapper refuses an operand that requires grad."""
     cpu, cd = torch.device("cpu"), torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 6, [16], H, 2, cd, cpu,
                                                                 seed=H)
@@ -5219,12 +5228,12 @@ def test_lite_mma_at_160_to_224_wrapper_takes_plain_version_on_cpu(H):
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn, cd)
     want = bidir_layer_sweep_lite(*args)
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma,)
     before = [f.launches for f in wrappers]
-    for got in (lstm_cuda.bilstm_bwd_lite_mma(*args),
-                lstm_cuda.bilstm_bwd_lite(*args),
-                lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")):
+    for got in (lstm_cuda.bilstm_bwd_lite_mma(*args), lstm_cuda.bilstm_bwd_lite(*args)):
         assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
+        lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.bilstm_bwd_lite_mma(xg.clone().requires_grad_(), *args[1:])
@@ -5258,29 +5267,53 @@ def test_fwd_wide_f32_at_160_to_224_wrappers_take_plain_versions_on_cpu(H):
 
 
 @pytest.mark.parametrize("name,dtype,H,refused", [
-    # retired: the f32 lite sweep's CUDA-core kernel at 160-224, the bf16
-    # CUDA-core forward at 96
+    # csrc/bilstm_bwd_lite.cu is gone: its name is refused at every width
+    # (the ids of the cases that timed it by name are kept)
     ("bilstm_bwd_lite", torch.float32, 160, True),
     ("bilstm_bwd_lite", torch.float32, 192, True),
     ("bilstm_bwd_lite", torch.float32, 224, True),
     ("bilstm_fwd_wide", torch.bfloat16, 96, True),
     ("bilstm_bwd_lite", torch.float32, 128, True),
     ("bilstm_bwd_lite", torch.bfloat16, 288, True),
-    # kept by name, to time beside the kernels that took them
-    ("bilstm_bwd_lite", torch.bfloat16, 160, False),
-    ("bilstm_bwd_lite", torch.bfloat16, 224, False),
-    ("bilstm_bwd_lite", torch.bfloat16, 256, False),
-    ("bilstm_fwd_wide", torch.float32, 160, False),
-    ("bilstm_fwd_wide", torch.float32, 224, False),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 160, True,
+                 id="bilstm_bwd_lite-dtype6-160-False"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 224, True,
+                 id="bilstm_bwd_lite-dtype7-224-False"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 256, True,
+                 id="bilstm_bwd_lite-dtype8-256-False"),
+    # retired after the tensor-core forwards beat it in turns: f32 and bf16
+    # at 160-224 (ids kept)
+    pytest.param("bilstm_fwd_wide", torch.float32, 160, True,
+                 id="bilstm_fwd_wide-dtype9-160-False"),
+    pytest.param("bilstm_fwd_wide", torch.float32, 224, True,
+                 id="bilstm_fwd_wide-dtype10-224-False"),
     ("bilstm_fwd_wide", torch.float32, 96, False),
-    ("bilstm_fwd_wide", torch.bfloat16, 192, False),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 192, True,
+                 id="bilstm_fwd_wide-dtype12-192-False"),
+    # kept by name, to time beside the kernels that took them
+    ("bilstm_fwd_wide", torch.bfloat16, 128, False),
+    ("bilstm_fwd_wide", torch.bfloat16, 256, False),
+    ("bilstm_fwd_wide", torch.float32, 192, True),
+    ("bilstm_fwd_wide", torch.bfloat16, 160, True),
+    ("bilstm_fwd_wide", torch.bfloat16, 224, True),
 ])
 def test_cuda_core_wide_kernels_by_name(name, dtype, H, refused):
-    """Which widths the CUDA-core wide forward and lite sweep take when
-    asked for by name (``kernel=``) on the card: the widths where a
-    tensor-core kernel beat them in turns are refused (the f32 lite sweep
-    at 96-256 and now at 160-224 too, the bf16 forward at 96), the others
-    up to 256 kept for timing; neither takes a width past 256."""
+    """Which widths the CUDA-core wide forward takes when asked for by name
+    (``kernel=``) on the card: the widths where a tensor-core kernel beat it
+    in turns are refused (f32 at 128-256, bf16 at 96 and now at 160-224),
+    the others up to 256 kept for timing; it takes no width past 256. The
+    CUDA-core lite sweep's source is gone: the wrapper refuses its name
+    before it looks at the operands, on the CPU too."""
+    if name == "bilstm_bwd_lite":
+        assert name not in lstm_cuda._SIGNATURES and name not in lstm_cuda.CUDA_CORE_WIDE_RETIRED
+        xg = torch.zeros(2, 3, 2, 4 * H, dtype=torch.float32)
+        hs = torch.zeros(3, 2, H, dtype=dtype)
+        lengths = torch.full((2,), 3, dtype=torch.int32)
+        w_hh = torch.zeros(2, 4 * H, H, dtype=dtype)
+        with pytest.raises(ValueError, match="no lite sweep kernel named 'bilstm_bwd_lite'"):
+            lstm_cuda.bilstm_bwd_lite(xg, lengths, w_hh, hs, hs, hs, hs, (), (), None, None,
+                                      dtype, kernel=name)
+        return
     if refused:
         with pytest.raises(ValueError, match=f"csrc/{name}.cu takes H <= 256, and f32 outside"):
             lstm_cuda.cuda_core_wide_check(name, H, dtype)
@@ -5302,8 +5335,7 @@ def test_lite_mma_at_160_to_224_matches_plain_on_card(cuda_device, T, H, G, B, n
     of 30, 13, 9, 12, 11 and 9 rows (short tiles inside each group), groups
     at lengths 0, 1 and T, rows of length 0, 1 and T and rows 8-15 short of
     T (a tile that stops early), at the plan's row tile. The dispatch names
-    it and its wrapper counts the launches; ``bilstm_bwd_lite.cu`` asked for
-    by name agrees too (bf16 keeps it there by name)."""
+    it and its wrapper counts the launches."""
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                                 seed=T + B + H)
@@ -5315,13 +5347,12 @@ def test_lite_mma_at_160_to_224_matches_plain_on_card(cuda_device, T, H, G, B, n
             dhn if final else None, dcn if final else None, cd)
     want = bidir_layer_sweep_lite(*args)
     assert lstm_cuda.lite_kernel(H, cd) == "bilstm_bwd_lite_mma"
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma,)
     before = [f.launches for f in wrappers]
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [want], 3e-2)
     _close([lstm_cuda.bilstm_bwd_lite_mma(*args)], [want], 3e-2)
-    _close([lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")], [want], 3e-2)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2]
 
 
 @pytest.mark.cuda
@@ -5365,15 +5396,14 @@ def test_lite_mma_at_160_at_the_main_path_shape_on_card(cuda_device):
 def test_lite_mma_at_160_rejects_bad_operands_on_card(cuda_device):
     """The bf16 lite sweep refuses what its kernel does not take at 160,
     before any launch: f32 operands, an f32 stream, a weight of the wrong
-    shape; ``bilstm_bwd_lite.cu`` by name refuses f32 at 160 (retired); nothing falls back."""
+    shape; the deleted ``bilstm_bwd_lite.cu``'s name is refused; nothing falls back."""
     cd, H = torch.bfloat16, 160
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [H], H, 2, cd, cuda_device)
     xg = input_gates(parts, w_ih, bias, cd)
     hs = torch.zeros(4, 10, H, device=cuda_device, dtype=cd)
     args = (xg, lengths, w_hh, hs, hs, hs, hs, dy[:1], dy[2:3], dhn, dcn, cd)
     wrapper = lstm_cuda.bilstm_bwd_lite_mma
-    before = [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches,
-              lstm_cuda.bilstm_bwd_lite_f32.launches]
+    before = [wrapper.launches, lstm_cuda.bilstm_bwd_lite_f32.launches]
     with pytest.raises(ValueError, match="bilstm_bwd_lite_mma kernel takes bfloat16"):
         wrapper(*args[:-1], torch.float32)
     with pytest.raises(ValueError, match="hs_f must be a contiguous"):
@@ -5382,12 +5412,11 @@ def test_lite_mma_at_160_rejects_bad_operands_on_card(cuda_device):
         wrapper(xg, lengths, w_hh[..., :128].contiguous(), *args[3:])
     f32 = torch.float32
     hs32 = hs.float()
-    with pytest.raises(ValueError, match="bilstm_bwd_lite.cu takes H <= 256, and f32 outside"):
+    with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(xg, lengths, w_hh.float(), hs32, hs32, hs32, hs32, (), (),
                                   None, None, f32, kernel="bilstm_bwd_lite")
     torch.cuda.synchronize()
-    assert [wrapper.launches, lstm_cuda.bilstm_bwd_lite.launches,
-            lstm_cuda.bilstm_bwd_lite_f32.launches] == before
+    assert [wrapper.launches, lstm_cuda.bilstm_bwd_lite_f32.launches] == before
 
 
 @pytest.mark.cuda
@@ -5422,8 +5451,8 @@ def test_fwd_wide_f32_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
     groups of 30, 13, 9, 12, 11 and 9 rows (short tiles), groups at lengths
     0, 1 and T, rows 8-15 short of T, T = 1. The eval and train variants
     give the same hs bits; the dispatch names it and its wrappers count the
-    launches; ``bilstm_fwd_wide.cu`` asked for by name agrees too (f32 keeps
-    it there by name)."""
+    launches; ``bilstm_fwd_wide.cu`` asked for by name is refused (retired
+    at f32 160-224 after it lost in turns)."""
     cd = torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                            seed=T + B + H)
@@ -5440,8 +5469,8 @@ def test_fwd_wide_f32_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
     _close(got, want, 1e-4)
     _close(ev, want[:4], 1e-4)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
-           want, 1e-4)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     rows = lstm_cuda.fwd_wide_f32_rows(H)
     assert rows == (16, 32)
     for R in rows:
@@ -5452,7 +5481,7 @@ def test_fwd_wide_f32_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
         _close(e, want[:4], 1e-4)
         assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 3, 0, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 3, 0, 0]
 
 
 @pytest.mark.cuda
@@ -5509,18 +5538,291 @@ def test_fwd_wide_f32_at_160_rejects_bad_operands_on_card(cuda_device):
 @pytest.mark.cuda
 def test_two_layer_bf16_model_at_embedding_160_on_card(cuda_device):
     """The bf16 two-layer model at embedding 160: both layers on the wide
-    route at H = 160, their lite sweeps on ``bilstm_bwd_lite_mma.cu`` (never
-    ``bilstm_bwd_lite.cu``), their forwards on ``bilstm_fwd_wide.cu``; its
-    gradients equal the CPU plain path's within 2^-7 x max(1, max|grad|)."""
+    route at H = 160, their lite sweeps on ``bilstm_bwd_lite_mma.cu``, their
+    forwards on ``bilstm_fwd_wide_mma.cu``'s kernel for uneven groups (never
+    ``bilstm_fwd_wide.cu``), their weight gradients split (``dW_ih`` on
+    cuBLAS, ``dW_hh`` on ``bilstm_wgrad_mma.cu``); its gradients equal the
+    CPU plain path's within 2^-7 x max(1, max|grad|)."""
     cd = torch.bfloat16
-    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_bwd_lite,
-                lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_wgrad_ih,
+                lstm_cuda.bilstm_wgrad_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=160)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 2, 2]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=160)
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 2.0 ** -7 * max(
             1.0, float(ref.abs().max())), name
+
+
+# ---------- the bf16 wide forward at 160-224 and the split weight gradient
+@pytest.mark.parametrize("H,MG", [(160, 3), (192, 3), (224, 4), (128, None), (256, None)])
+def test_fwd_wide_mma_at_160_to_224_smem_and_plan(H, MG):
+    """The bf16 wide forward at 160, 192 and 224 (H % 128 != 0; at 192 the 3
+    unit groups of each block do not split over its 8 warps) takes the
+    kernel for uneven groups: its shared memory is
+    ``csrc/bilstm_fwd_wide_mma.cu:smem_bytes_u`` (the W_hh slice of the
+    block of MG = ceil(H / 64) groups, 32 MG rows of H + 8; two h tiles; the
+    staging of 8 MG units), two blocks fit an SM at every row tile
+    (``blocks_per_sm_u``), and its plan takes the uneven row tiles: with 30
+    clusters at once the 32-row tile puts the train shape (400 rows in 5
+    groups, or in 1) on the card in one wave. 128 and 256 keep the even
+    kernel's rows and bytes."""
+    thirty = lambda R, smem: 30  # noqa: E731
+    if MG is None:
+        for R in lstm_cuda.FWD_WIDE_MMA_ROWS:
+            U = H // 8
+            assert lstm_cuda.wide_smem("fwd_mma", H, R) == (
+                4 * U * (H + 8) * 2 + 2 * R * (H + 8) * 2 + 2 * R * (U + 8) * 2)
+        assert lstm_cuda.wide_plan("fwd_mma", 400, 5, H, thirty)[0] in lstm_cuda.FWD_WIDE_MMA_ROWS
+        return
+    assert lstm_cuda.wide_fwd_kernel(H, torch.bfloat16) == "bilstm_fwd_wide_mma"
+    for R in lstm_cuda.FWD_WIDE_MMA_UNEVEN_ROWS:
+        smem = lstm_cuda.wide_smem("fwd_mma", H, R)
+        assert smem == 32 * MG * (H + 8) * 2 + 2 * R * (H + 8) * 2 + 2 * R * (8 * MG + 8) * 2
+        assert 2 * (smem + 1024) <= 233472
+    smem32 = {160: 57856, 192: 68096, 224: 94208}[H]
+    assert lstm_cuda.wide_smem("fwd_mma", H, 32) == smem32
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 5, H, thirty) == (32, 15, smem32)
+    assert lstm_cuda.wide_plan("fwd_mma", 400, 1, H, thirty) == (32, 13, smem32)
+    with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+        lstm_cuda.fwd_wide_mma_check(H, torch.float32)
+
+
+def test_wgrad_mma_plan_with_no_input_part():
+    """``dW_hh`` alone (the bf16 wide route's split): the bf16 tensor-core
+    wgrad takes no input part (the f32 one does not), its column tiles are
+    H's alone and its split is planned for them: at the scaled shape (T =
+    1500, 400 rows, H = 256) 2 column tiles and 4 splits for layer 0 (G =
+    5) against 4 and 2 with its input part, 17 splits for the stacked layer
+    (G = 1) against 6."""
+    bf16 = torch.bfloat16
+    lstm_cuda.wgrad_mma_check((), 256, bf16)
+    lstm_cuda.wgrad_mma_check((), 80, bf16)
+    with pytest.raises(ValueError, match="and 1 or 2 input parts"):
+        lstm_cuda.wgrad_f32_check((), 256, torch.float32)
+    with pytest.raises(ValueError, match="and 0, 1 or 2 input parts"):
+        lstm_cuda.wgrad_mma_check((8, 8, 8), 256, bf16)
+    assert lstm_cuda.wgrad_mma_plan(1500, 400, 5, (), 256) == (8, 2, 4)
+    assert lstm_cuda.wgrad_mma_plan(1500, 400, 5, (256,), 256) == (8, 4, 2)
+    assert lstm_cuda.wgrad_mma_plan(1500, 400, 1, (), 256) == (8, 2, 17)
+    assert lstm_cuda.wgrad_mma_plan(1500, 400, 1, (256, 256), 256) == (8, 6, 6)
+    for H in (96, 160, 288):
+        m, n, splits = lstm_cuda.wgrad_mma_plan(1500, 400, 5, (), H)
+        assert n == -(-H // 128) and m * n * 2 * 5 * splits >= lstm_cuda.WGRAD_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("E_parts,G", [([32], 2), ([32, 16], 1)])
+def test_wgrad_split_takes_plain_version_on_cpu(E_parts, G):
+    """On the CPU the split weight gradient and its ``dW_ih`` products run
+    the plain sums, bit for bit, and launch nothing; the tensor-core wgrad
+    with no input part gives ``dW_hh`` alone and a ``(2, 4H, 0)`` dW_ih."""
+    cpu, cd, H, T, B = torch.device("cpu"), torch.bfloat16, 32, 5, 6
+    g = torch.Generator().manual_seed(len(E_parts))
+    u = lambda *shape: (torch.rand(*shape, generator=g) * 2 - 1).to(cd)  # noqa: E731
+    dgc, hs_f, hs_b = u(2, T, B, 4 * H), u(T, B, H), u(T, B, H)
+    parts = tuple(u(T, B, e) for e in E_parts)
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    wrappers = (lstm_cuda.bilstm_wgrad_ih, lstm_cuda.bilstm_wgrad_mma)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(lstm_cuda.bilstm_wgrad_ih(dgc, parts), want[0])
+    hh = lstm_cuda.bilstm_wgrad_mma(dgc, (), hs_f, hs_b, G)
+    assert hh[0].shape == (2, 4 * H, 0) and torch.equal(hh[1], want[1])
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.bilstm_wgrad_ih(dgc.clone().float().requires_grad_(), parts)
+    assert cpu.type == "cpu"
+
+
+@pytest.mark.parametrize("E_parts,H,dtype,wgrad", [
+    ([128], 128, torch.bfloat16, "split"), ([128, 128], 128, torch.bfloat16, "split"),
+    ([72, 72], 72, torch.bfloat16, "split"),  # wide at 96
+    ([128], 128, torch.float32, "whole"), ([32], 32, torch.bfloat16, "whole"),
+    ([64, 64], 64, torch.bfloat16, "whole")])
+def test_layer_bwd_splits_the_wgrad_on_the_bf16_wide_route(monkeypatch, E_parts, H, dtype,
+                                                            wgrad):
+    """``layer_bwd`` takes ``bilstm_wgrad_split`` for every bf16 layer on the
+    wide route (96-288 units, padded ones too) and ``bilstm_wgrad`` for the
+    rest (f32, and the resident route); on the CPU both give the plain
+    sums."""
+    cpu = torch.device("cpu")
+    calls = []
+    for name, tag in (("bilstm_wgrad_split", "split"), ("bilstm_wgrad", "whole")):
+        monkeypatch.setattr(lstm_cuda, name,
+                            lambda *a, _t=tag: calls.append(_t) or bidir_layer_wgrad(*a))
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(5, 4, E_parts, H, 2, dtype, cpu)
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype,
+                                                       with_states=True)
+    got = lstm_cuda.layer_bwd(parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
+                              dy[:1], dy[2:3], dhn, dcn, dtype)
+    assert calls == [wgrad]
+    assert got[2].shape == (2, 4 * H, sum(E_parts)) and got[3].shape == (2, 2, 4 * H, H)
+    assert (lstm_cuda.layer_route(E_parts, H, dtype) == "wide"
+            and dtype == torch.bfloat16) == (wgrad == "split")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("H,G,B", [(160, 1, 30), (192, 1, 13), (224, 3, 27), (160, 5, 60),
+                                   (192, 2, 22), (224, 4, 36), (192, 5, 400)])
+def test_fwd_wide_mma_at_160_to_224_matches_plain_on_card(cuda_device, monkeypatch, T, H, G, B):
+    """The bf16 tensor-core wide forward at 160, 192 and 224 (the kernel for
+    uneven unit groups, 2 / 3, 3 and 3 / 4 a block), both variants, at the
+    plan's row tile and at each one it is built for (pinned with
+    monkeypatch), against the plain recurrence at 3e-2 x max(1, max|ref|):
+    groups of 30, 13, 9, 12, 11, 9 and 80 rows (short tiles), groups at
+    lengths 0, 1 and T, rows 8-15 short of T, T = 1. The eval and train
+    variants give the same hs bits; the dispatch names it and its wrappers
+    count the launches; ``bilstm_fwd_wide.cu`` asked for by name is refused
+    (retired there after it lost in turns)."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=T + B + H)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma"
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
+    for R in lstm_cuda.FWD_WIDE_MMA_UNEVEN_ROWS:
+        monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_UNEVEN_ROWS", (R,))
+        tr = lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd)
+        e = lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd)
+        _close(tr, want, 3e-2)
+        _close(e, want[:4], 3e-2)
+        assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 4, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [160, 192, 224])
+def test_fwd_wide_mma_at_160_to_224_at_the_main_path_shape_on_card(cuda_device, H):
+    """Layer 0 of a bf16 model at H = 160, 192 and 224 (E = H, 400 rows in 5
+    groups, T = 1500, the main path's lengths): both variants against the
+    plain twin at 3e-2 x max(1, max|ref|), the same bits twice, and the same
+    hs bits in both variants."""
+    cd, T, B, G = torch.bfloat16, 1500, 400, 5
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=H)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
+    del parts
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    got = lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd)
+    again = lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    ev = lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+
+
+@pytest.mark.cuda
+def test_fwd_wide_mma_at_160_rejects_bad_operands_on_card(cuda_device):
+    """The bf16 tensor-core forward refuses what its kernel does not take at
+    160, before any launch: f32 operands, a weight of the wrong shape;
+    ``bilstm_fwd_wide.cu`` by name refuses bf16 at 160-224 (retired); an
+    empty batch launches nothing."""
+    cd, H = torch.bfloat16, 160
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [H], H, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    for fwd in wrappers[:2]:
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
+            fwd(xg, lengths, w_hh.float(), torch.float32)
+        with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+            fwd(xg, lengths, w_hh[..., :128].contiguous(), cd)
+        out = fwd(xg[:, :, :0].contiguous(), lengths[:0], w_hh[:, :1].contiguous(), cd)
+        assert out[0].shape == (4, 0, H)
+    for width in (160, 192, 224):
+        case = layer_case(4, 10, [width], width, 1, cd, cuda_device)
+        xw = input_gates(case[0], case[2], case[4], cd)
+        with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+            lstm_cuda.bilstm_fwd_wide(xw, case[1], case[3], cd, kernel="bilstm_fwd_wide")
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+
+
+def _wgrad_operands(T, B, E_parts, H, dev, seed):
+    """bf16 wgrad operands: dgc zero past each row's ragged length (as a
+    sweep leaves it; rows of length 0, 1 and T), the input parts and both
+    directions' h streams."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: (torch.rand(*s, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)  # noqa
+    lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev)
+    lengths[:3] = torch.tensor([0, 1, T], device=dev)
+    live = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).to(torch.bfloat16)
+    dgc = u(2, T, B, 4 * H) * live[None, :, :, None]
+    return dgc, tuple(u(T, B, e) for e in E_parts), u(T, B, H), u(T, B, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(1, 30), (300, 40)])
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("E_parts,H", [([96], 96), ([80, 80], 96), ([128], 128),
+                                       ([128, 128], 128), ([160], 160), ([160, 160], 160),
+                                       ([288], 288), ([288, 288], 288)])
+def test_wgrad_split_matches_plain_on_card(cuda_device, monkeypatch, E_parts, H, G, T, B):
+    """The bf16 wide route's split weight gradient (``dW_ih`` from cuBLAS
+    bf16 products with f32 output, ``dW_hh`` from ``bilstm_wgrad_mma`` with
+    no input part) against the plain sums at 3e-2 x max(1, max|ref|), as the
+    whole kernel's card tests: one and two input parts, 1 and 5 weight
+    groups, T = 1 (every h_prev past an end) and 300. ``dW_hh`` alone equals
+    the whole kernel's bit for bit when it is split as the whole kernel is
+    (``wgrad_mma_plan`` pinned to the whole launch's splits). The counters:
+    one ``dW_ih`` call, one ``dW_hh`` launch; f32 is refused."""
+    dgc, parts, hs_f, hs_b = _wgrad_operands(T, B, E_parts, H, cuda_device, H + G + T)
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    before = (lstm_cuda.bilstm_wgrad_ih.launches, lstm_cuda.bilstm_wgrad_mma.launches)
+    got = lstm_cuda.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_wgrad_ih.launches - before[0],
+            lstm_cuda.bilstm_wgrad_mma.launches - before[1]) == (1, 1)
+    _close(got, want, 3e-2)
+    whole = lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)
+    _close(whole, want, 3e-2)
+    splits = lstm_cuda.wgrad_mma_plan(T, B, G, [p.shape[-1] for p in parts], H)[2]
+    plan = lstm_cuda.wgrad_mma_plan
+    monkeypatch.setattr(lstm_cuda, "wgrad_mma_plan",
+                        lambda T, B, G, E, H: plan(T, B, G, E, H)[:2] + (splits,))
+    hh = lstm_cuda.bilstm_wgrad_mma(dgc, (), hs_f, hs_b, G)
+    assert hh[0].shape == (2, 4 * H, 0)
+    assert torch.equal(hh[1], whole[1])
+    with pytest.raises(ValueError, match="bilstm_wgrad_ih takes bfloat16"):
+        lstm_cuda.bilstm_wgrad_ih(dgc.float(), parts)
+
+
+@pytest.mark.cuda
+def test_wgrad_split_at_the_scaled_shape_on_card(cuda_device):
+    """The scaled configuration's layer 0 (E = H = 256, 5 groups) and one
+    stacked layer (E = 2 x 256, 1 group) at the train shape (400 rows, T =
+    1500): the split weight gradient against the plain sums at 3e-2 x max(1,
+    max|ref|), the same bits twice; its ``dW_ih`` columns are the whole
+    kernel's within the same tolerance."""
+    T, B, H = 1500, 400, 256
+    for E_parts, G in (([256], 5), ([256, 256], 1)):
+        dgc, parts, hs_f, hs_b = _wgrad_operands(T, B, E_parts, H, cuda_device, G)
+        want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+        got = lstm_cuda.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G)
+        again = lstm_cuda.bilstm_wgrad_split(dgc, parts, hs_f, hs_b, G)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _close(got, want, 3e-2)
+        _close(got[:1], lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)[:1], 3e-2)
+        del dgc, parts, hs_f, hs_b, want, got, again

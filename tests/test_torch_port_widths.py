@@ -155,6 +155,22 @@ def _grid_plans(dtype):
     return plans
 
 
+def _with_cuda_core_sweep(m):
+    """Set back, on the monkeypatch context ``m``, the lite-sweep dispatch
+    of the trees that still had ``csrc/bilstm_bwd_lite.cu``: a width no
+    tensor-core sweep takes, among those ``wide_check`` admits, named that
+    kernel (the plans of a slice set back are those trees' plans)."""
+    real = lstm_cuda.lite_kernel
+
+    def lite_kernel(H, dtype):
+        try:
+            return real(H, dtype)
+        except ValueError:
+            lstm_cuda.wide_check(H)
+            return "bilstm_bwd_lite"
+    m.setattr(lstm_cuda, "lite_kernel", lite_kernel)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_the_80_sweep_and_288_forward_change_no_other_plan(dtype, monkeypatch):
     """Over the grid above, every layer keeps the route and padded shape it
@@ -169,7 +185,9 @@ def test_the_80_sweep_and_288_forward_change_no_other_plan(dtype, monkeypatch):
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "BWD_MMA_MAX_H", lstm_cuda.MMA_MAX_H)
-            m.setattr(lstm_cuda, "FWD_WIDE_MMA_WIDTHS", (128, 256))
+            m.setattr(lstm_cuda, "FWD_WIDE_MMA_WIDTHS",
+                      tuple(h for h in lstm_cuda.FWD_WIDE_MMA_WIDTHS if h != 288))
+            _with_cuda_core_sweep(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -208,6 +226,7 @@ def test_the_f32_lite_sweep_changes_no_other_plan(dtype, monkeypatch):
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "LITE_F32_WIDTHS", ())
+            _with_cuda_core_sweep(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -249,6 +268,7 @@ def test_the_f32_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mon
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "FWD_F32_MAX_H", 64)
             m.setattr(lstm_cuda, "LITE_F32_RESIDENT_WIDTHS", ())
+            _with_cuda_core_sweep(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -341,6 +361,7 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
             m.setattr(lstm_cuda, "FWD_MMA_SHAPES",
                       tuple(s for s in lstm_cuda.FWD_MMA_SHAPES if s[0] <= lstm_cuda.MMA_MAX_H))
             m.setattr(lstm_cuda, "LITE_MMA_RESIDENT_WIDTHS", ())
+            _with_cuda_core_sweep(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -383,7 +404,9 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
 # constants that set a slice back, and by dtype the only kernel changes it
 # made, {(old, new): the padded widths Hp where the wide route changed}.
 # First the f32 lite sweep at 160-224 with the one-block bf16 wide forward
-# at 96, then the bf16 lite sweep with the f32 wide forward at 160-224.
+# at 96, then the bf16 lite sweep with the f32 wide forward at 160-224, then
+# the bf16 wide forward at 160-224. Each is set back on the lite-sweep
+# dispatch of its time (``_with_cuda_core_sweep``).
 WIDE_SLICES = {
     "f32_lite_160_224_bf16_fwd_96": (
         {"LITE_F32_WIDTHS": (128, 256, 288), "FWD_WIDE_MMA_RESIDENT_WIDTHS": ()},
@@ -393,6 +416,10 @@ WIDE_SLICES = {
         {"LITE_MMA_WIDTHS": (128, 256, 288), "FWD_WIDE_F32_WIDTHS": (128, 256, 288)},
         {torch.float32: {("bilstm_fwd_wide", "bilstm_fwd_wide_f32"): {160, 192, 224}},
          torch.bfloat16: {("bilstm_bwd_lite", "bilstm_bwd_lite_mma"): {160, 192, 224}}}),
+    "bf16_fwd_160_224": (
+        {"FWD_WIDE_MMA_WIDTHS": (128, 256, 288)},
+        {torch.float32: {},
+         torch.bfloat16: {("bilstm_fwd_wide", "bilstm_fwd_wide_mma"): {160, 192, 224}}}),
 }
 
 
@@ -407,14 +434,16 @@ def test_each_wide_kernel_slice_changes_no_other_plan(kernel_slice, dtype, monke
     layer 0 of 81-96 at Hp = 96), or f32 ``bilstm_fwd_wide`` →
     ``bilstm_fwd_wide_f32`` and bf16 ``bilstm_bwd_lite`` →
     ``bilstm_bwd_lite_mma`` at Hp = 160, 192 and 224 (layer 0 of 145-224
-    units and the stacked layers run there). Today no wide layer takes
-    ``bilstm_bwd_lite.cu``, and f32 keeps ``bilstm_fwd_wide.cu`` at 96 and
-    bf16 at 160-224 only."""
+    units and the stacked layers run there), or bf16 ``bilstm_fwd_wide`` →
+    ``bilstm_fwd_wide_mma`` at 160, 192 and 224. Today no wide layer takes
+    the CUDA-core lite sweep (its source is gone), and f32 keeps
+    ``bilstm_fwd_wide.cu`` at 96 only, bf16 nowhere."""
     constants, changes = WIDE_SLICES[kernel_slice]
     try:
         with monkeypatch.context() as m:
             for name, value in constants.items():
                 m.setattr(lstm_cuda, name, value)
+                _with_cuda_core_sweep(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -436,12 +465,13 @@ def test_each_wide_kernel_slice_changes_no_other_plan(kernel_slice, dtype, monke
     assert {96, 160, 192, 224} <= {p[1] for p in wide}
     assert not any(p[3][2] == "bilstm_bwd_lite" for p in wide)
     assert {p[1] for p in wide if p[3][1] == "bilstm_fwd_wide"} == (
-        {96} if dtype == torch.float32 else {160, 192, 224})
+        {96} if dtype == torch.float32 else set())
     if dtype == torch.float32:
         assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide_f32",
                                                       "bilstm_bwd_lite_f32")
     else:
-        assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide", "bilstm_bwd_lite_mma")
+        assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide_mma",
+                                                      "bilstm_bwd_lite_mma")
         for width in (80, 72):
             assert after["train stacked", width][3][1] == "bilstm_fwd_wide_mma_resident"
 
@@ -624,18 +654,13 @@ def test_two_layer_model_matches_jax(embedding):
                                    err_msg=name)
 
 
-def test_two_layer_bf16_model_at_embedding_72_matches_jax():
-    """The bf16 two-layer model at embedding 72 (layer 0 at E = H = 72, the
-    tensor-core forward's and sweep's <72, 72> shape; the stacked layer run
-    at 96, the one-block bf16 lite sweep's) against JAX with
+def _bf16_model_matches_jax(embedding):
+    """The bf16 two-layer model at ``embedding`` against JAX with
     ``compute_dtype=bfloat16`` on the same numpy weights, dropout off: the
-    eval step's and one train step's loss and aux values to rtol 1e-5 (the
-    same bf16 roundings of the same values; measured equal), and every
-    gradient within 2^-6 x max|ref| of its own parameter, plus 1e-7 for the
-    gradients that are 0 (four bf16 ulps at the gradient's scale: the port
-    and JAX round the streams in bf16 at other places and sum in f32 in
-    another order; measured at most 5.9e-3 x max|ref|, layer 0's w_hh)."""
-    vocab, pairs, T, embedding = 30, 2, 8, 72
+    eval step's and one train step's loss and aux values to rtol 1e-5, and
+    every gradient within 2^-6 x max|ref| of its own parameter, plus 1e-7
+    for the gradients that are 0."""
+    vocab, pairs, T = 30, 2, 8
     kw = dict(vocab_size=vocab, embedding_size=embedding, num_epochs=5,
               rnn_dropout_rate=0.0, embedding_droprate=0.0, do_rate=0.0)
     jnet = jax_network(4, compute_dtype=jnp.bfloat16, **kw)
@@ -673,6 +698,31 @@ def test_two_layer_bf16_model_at_embedding_72_matches_jax():
         ref = want[name].float().numpy()
         err = float(np.abs(got - ref).max())
         assert err <= 2.0 ** -6 * float(np.abs(ref).max()) + 1e-7, (name, err)
+
+
+def test_two_layer_bf16_model_at_embedding_72_matches_jax():
+    """The bf16 two-layer model at embedding 72 (layer 0 at E = H = 72, the
+    tensor-core forward's and sweep's <72, 72> shape; the stacked layer run
+    at 96, the one-block bf16 lite sweep's) against JAX with
+    ``compute_dtype=bfloat16`` on the same numpy weights, dropout off: the
+    eval step's and one train step's loss and aux values to rtol 1e-5 (the
+    same bf16 roundings of the same values; measured equal), and every
+    gradient within 2^-6 x max|ref| of its own parameter, plus 1e-7 for the
+    gradients that are 0 (four bf16 ulps at the gradient's scale: the port
+    and JAX round the streams in bf16 at other places and sum in f32 in
+    another order; measured at most 5.9e-3 x max|ref|, layer 0's w_hh)."""
+    _bf16_model_matches_jax(72)
+
+
+def test_two_layer_bf16_model_at_embedding_160_matches_jax():
+    """The bf16 two-layer model at embedding 160 (both layers on the wide
+    route at H = 160: the bf16 wide forward's kernel for uneven unit groups,
+    the bf16 lite sweep's, the weight gradients split as the JAX lite mode
+    splits them) against JAX in bf16, dropout off, with the tolerances of
+    the model at embedding 72: loss and aux to rtol 1e-5, every gradient
+    within 2^-6 x max|ref| + 1e-7. On the CPU the port runs the kernels'
+    plain twins along the same routes."""
+    _bf16_model_matches_jax(160)
 
 
 @pytest.mark.parametrize("layers", [1, 2])

@@ -4,10 +4,12 @@ configuration, from a given checkout of the repository, so that two commits
 can be compared in turns on the same card:
 
     python3 tools/port_step_time.py --repo DIR --embedding_size 72 \\
-        --dtype bfloat16 [--backend recurrence] [--steps 4] [--warmup 2]
+        --dtype bfloat16 [--layers 2] [--backend recurrence] [--steps 4] [--warmup 2]
 
-It imports ``intrepppid_tpu_torch`` from DIR (never JAX), builds the
-two-layer model with seeded weights and ``ranger21_xx``, and runs synthetic
+It imports ``intrepppid_tpu_torch`` from DIR (never JAX), builds the model
+(two layers unless ``--layers`` says otherwise; the scaled configuration is
+``--embedding_size 256 --layers 3``) with seeded weights and
+``ranger21_xx``, and runs synthetic
 quintuplet batches of 80 pairs at T = 1500 (dropout on), built as
 ``chip_smoke.py`` builds them. It prints one JSON line: each timed train
 step's wall ms (synced on the loss), their median, the kernel launches of
@@ -68,6 +70,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", type=Path, required=True)
     ap.add_argument("--embedding_size", type=int, default=64)
+    ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--backend", choices=("auto", "recurrence"), default="auto")
     ap.add_argument("--steps", type=int, default=4)
@@ -88,7 +91,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     net = intrepppid_network(steps_per_epoch=100, compute_dtype=getattr(torch, args.dtype),
                              optimizer_type="ranger21_xx", device=dev, seed=0,
-                             embedding_size=args.embedding_size)
+                             embedding_size=args.embedding_size,
+                             rnn_num_layers=args.layers)
     trainer = Trainer(net, seed=0)
     rng = np.random.default_rng(0)
     batches = [quintuplet_batch(rng, PAIRS, T) for _ in range(2)]
@@ -108,6 +112,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"repo": str(args.repo), "embedding_size": args.embedding_size,
+                      "layers": args.layers,
                       "dtype": args.dtype, "backend": args.backend, "pairs": PAIRS, "T": T,
                       "step_ms": step_ms, "median_step_ms": float(np.median(step_ms)),
                       "launches": launches, "profiled_wall_ms": wall, "device_ms": dev_ms,
