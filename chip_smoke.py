@@ -75,7 +75,9 @@ exits non-zero with no result):
    ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
    stacked layer padded to H = 96 on the wide route (the tensor-core
-   gates, the CUDA-core forward, and the one-block lite sweep,
+   gates, the one-block wide forward, ``bilstm_fwd_wide_f32_resident`` in
+   f32 and ``bilstm_fwd_wide_mma_resident`` in bf16, never
+   ``bilstm_fwd_wide.cu``, and the one-block lite sweep,
    ``bilstm_bwd_lite_f32_resident`` in f32 and
    ``bilstm_bwd_lite_mma_resident`` in bf16, never ``bilstm_bwd_lite.cu``);
    then one step's gradients (and at embedding 80 an eval step)
@@ -116,9 +118,10 @@ exits non-zero with no result):
    the stacked layer on ``bilstm_bwd_lite_mma_resident``, never
    ``bilstm_fwd.cu`` or ``bilstm_bwd.cu``); the
    wide forward (both variants: in bf16 the one-block
-   ``bilstm_fwd_wide_mma_resident``, in f32 the CUDA-core
-   ``bilstm_fwd_wide.cu``) and lite sweep (the one-block ones) at the
-   stacked layer at embedding 80
+   ``bilstm_fwd_wide_mma_resident``, in f32 the one-block
+   ``bilstm_fwd_wide_f32_resident`` in three tf32 passes, also at 5 weight
+   groups and in turns with the CUDA-core ``bilstm_fwd_wide.cu`` by name)
+   and lite sweep (the one-block ones) at the stacked layer at embedding 80
    (run at H = 96) in bf16 and in f32, against their twins, timed beside
    their bounds and cuDNN; at 288 the
    tensor-core forward (both variants) ``bilstm_fwd_wide(_train)_mma``
@@ -197,11 +200,20 @@ exits non-zero with no result):
    sweep and the CUDA-core wgrad, asked for by name, are held and timed
    beside them (new, old, old, new; the cluster forward is no longer asked
    for by name there); ragged cases (27 rows in 3 groups, T = 1, 2
-   and 5, the bf16 forward at D = 1-3); the cluster sweep at its own main
-   path's shapes (H = 128, 5 groups, f32). Each is timed
+   and 5, the bf16 forward at D = 1-3); the op at H = 128, 5 groups, the
+   shapes of its main paths (``op_h128``: in f32 the tensor-core sweep
+   ``lstm_recurrence_bwd_mid_f32``, three tf32 passes, both masks, the same
+   bits twice, in turns with the cluster sweep by name; in bf16 the cluster
+   forward and sweep); the f32 sweep at each width 96-288 (``mid_f32``:
+   held against its twin at T = 300, then each of its instances, by blocks
+   a cluster, fragments resident or read from L2, and row tile, timed in
+   turns with the dispatch at T = 1500, with registers, spills and the
+   clusters the card holds). At H = 256 the f32 sweep is
+   ``lstm_recurrence_bwd_mid_f32`` too, with the cluster sweep by name
+   beside it. Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
-   bidirectional ``nn.LSTM`` layer at full lengths, in f32 and at H = 64
-   and 32 in bf16, which also does the input projection; for the weight
+   bidirectional ``nn.LSTM`` layer at full lengths, in f32 and bf16,
+   which also does the input projection; for the weight
    gradient one batched cuBLAS product on the rounded operands and, in
    bf16, the rounding, layout and product together); then the op past 256
    units (H = 288 on the cluster kernels' 288-thread instance, 512 and
@@ -221,8 +233,9 @@ exits non-zero with no result):
    > 0, the cluster forward and sweep, the CUDA-core wgrad and the layer
    kernels 0; then 2 f32 steps (and a profiled one), whose forward, sweep
    and wgrad must be the cluster forward, ``lstm_recurrence_bwd_f32`` and
-   the CUDA-core wgrad alone, and 2 f32 steps of a one-layer model at
-   embedding 128, whose sweep only the cluster kernel takes; a profiled
+   the CUDA-core wgrad alone, and 2 steps of a one-layer model at
+   embedding 128, in f32 (its sweep ``lstm_recurrence_bwd_mid_f32``, never
+   the cluster sweep) and in bf16 (the cluster forward and sweep); a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
@@ -238,7 +251,7 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-eight kernels, each with launches > 0 on
+11. the ``kernels`` line (thirty-nine kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
@@ -246,7 +259,10 @@ exits non-zero with no result):
     tensor-core forward at H = 64 as an entry of its own;
     ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
     ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
-    72 beside it); the CUDA-core wide forward's main path f32 at 96; the
+    72 beside it); the one-block f32 wide forward's main path f32 at 96
+    (``bilstm_fwd_wide.cu``, on no path since, by name beside it); the op's
+    f32 sweep at 96-288 from the f32 one-layer model at embedding 128, and
+    the cluster sweep from the bf16 one (its f32 times by name beside it); the
     bf16 tensor-core forward at 160-224 as ``hN_*`` fields of its entries;
     the split bf16 weight gradient (``dW_hh`` on ``bilstm_wgrad_mma``,
     ``dW_ih`` on cuBLAS) as ``split_hN_*`` fields of ``bilstm_wgrad_mma``'s
@@ -845,7 +861,8 @@ def wgrad_library(dgc, parts, hs_f, hs_b, G):
 TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilstm_wgrad_f32",
            "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
            "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32", "bilstm_gates_f32",
-           "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32_resident")
+           "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_f32_resident",
+           "lstm_recurrence_bwd_mid_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -1019,7 +1036,8 @@ def ragged_80_96_check(dev) -> list:
     bf16 also its <72, 72> one), the one-block lite sweep at H = 96 (in
     f32 ``bilstm_bwd_lite_f32_resident``, in bf16
     ``bilstm_bwd_lite_mma_resident``), the one-block bf16 wide forward at
-    96 (both variants, ``bilstm_fwd_wide_mma_resident``), the f32
+    96 (both variants, ``bilstm_fwd_wide_mma_resident``) and its f32 twin
+    in three tf32 passes (``bilstm_fwd_wide_f32_resident``), the f32
     tensor-core lite sweep and wide forward (both variants) and the bf16
     tensor-core lite sweep at 160, 192 and 224 (``bilstm_bwd_lite_f32``,
     ``bilstm_fwd_wide_f32``, ``bilstm_bwd_lite_mma``) against their twins
@@ -1054,6 +1072,7 @@ def ragged_80_96_check(dev) -> list:
                 ("bilstm_fwd_mma", 72, [72], torch.bfloat16),
                 ("bilstm_bwd_lite_mma_resident", 96, [48, 48], torch.bfloat16),
                 ("bilstm_fwd_wide_mma_resident", 96, [48, 48], torch.bfloat16),
+                ("bilstm_fwd_wide_f32_resident", 96, [48, 48], torch.float32),
                 ("bilstm_bwd_lite_f32", 160, [160], torch.float32),
                 ("bilstm_bwd_lite_f32", 192, [96, 96], torch.float32),
                 ("bilstm_bwd_lite_f32", 224, [224], torch.float32),
@@ -1470,7 +1489,10 @@ def train_counters():
             "bilstm_fwd_wide_train_f32": L.bilstm_fwd_wide_train_f32,
             "bilstm_fwd_wide_f32": L.bilstm_fwd_wide_f32,
             "bilstm_fwd_wide_train_mma_resident": L.bilstm_fwd_wide_train_mma_resident,
-            "bilstm_fwd_wide_mma_resident": L.bilstm_fwd_wide_mma_resident}
+            "bilstm_fwd_wide_mma_resident": L.bilstm_fwd_wide_mma_resident,
+            "bilstm_fwd_wide_train_f32_resident": L.bilstm_fwd_wide_train_f32_resident,
+            "bilstm_fwd_wide_f32_resident": L.bilstm_fwd_wide_f32_resident,
+            "lstm_recurrence_bwd_mid_f32": L.lstm_recurrence_bwd_mid_f32}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1534,17 +1556,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # gate tile) in bf16, its sweep the one-stage 3xTF32 kernel in f32 and
     # the tensor-core bilstm_bwd_mma.cu in bf16, never bilstm_bwd.cu; the
     # stacked layer (E = 2 x 80) runs padded to H = 96 on the wide route:
-    # the tensor-core input gates (in f32 bilstm_gates_f32), the forward (in
-    # f32 the CUDA-core bilstm_fwd_wide.cu, in bf16 the one-block
-    # bilstm_fwd_wide_mma_resident.cu, never bilstm_fwd_wide.cu), and the
+    # the tensor-core input gates (in f32 bilstm_gates_f32), the forward (the
+    # one-block bilstm_fwd_wide_f32_resident.cu in f32, three tf32 passes,
+    # and bilstm_fwd_wide_mma_resident.cu in bf16, never bilstm_fwd_wide.cu), and the
     # one-block lite sweep, in f32 the 3xTF32 bilstm_bwd_lite_f32_resident.cu
     # and in bf16 bilstm_bwd_lite_mma_resident.cu (and in bf16 the stacked
     # layer's dW_ih products on cuBLAS)
     e80_expect = {
         torch.float32: ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
-                        "bilstm_bwd_f32_onestage", "bilstm_gates_f32", "bilstm_fwd_wide_train",
-                        "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32",
-                        "bilstm_wgrad"),
+                        "bilstm_bwd_f32_onestage", "bilstm_gates_f32",
+                        "bilstm_fwd_wide_train_f32_resident", "bilstm_fwd_wide_f32_resident",
+                        "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32", "bilstm_wgrad"),
         torch.bfloat16: ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                          "bilstm_gates_mma", "bilstm_fwd_wide_train_mma_resident",
                          "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident",
@@ -1555,13 +1577,15 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                         "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
                         "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32",
                         "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_train_mma_resident",
-                        "bilstm_fwd_wide_mma_resident"),
+                        "bilstm_fwd_wide_mma_resident", "bilstm_fwd_wide_train",
+                        "bilstm_fwd_wide"),
         torch.bfloat16: ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
                          "bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates_f32",
                          "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_train",
                          "bilstm_layer_fwd", "bilstm_bwd_lite_mma",
                          "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train",
-                         "bilstm_fwd_wide")}
+                         "bilstm_fwd_wide", "bilstm_fwd_wide_train_f32_resident",
+                         "bilstm_fwd_wide_f32_resident")}
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
         dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
         embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
@@ -1624,7 +1648,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
                         "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel",
-                        "bilstm_fwd_wide_mma_resident_kernel"),
+                        "bilstm_fwd_wide_mma_resident_kernel",
+                        "bilstm_fwd_wide_f32_resident_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
                           "lstm_recurrence_bwd_f32_kernel",
                           "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
@@ -1633,7 +1658,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                           "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
                           "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel",
                           "bilstm_bwd_lite_f32_resident_kernel",
-                          "bilstm_bwd_lite_mma_resident_kernel"),
+                          "bilstm_bwd_lite_mma_resident_kernel",
+                          "lstm_recurrence_bwd_mid_f32_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1750,7 +1776,10 @@ WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_wgrad")
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
 # (bilstm_fwd_wide.cu and the dW_ih products must not launch), in bf16 the
 # bf16 tensor-core forward's and lite sweep's and the split wgrad's
-# (bilstm_fwd_wide.cu must not launch)) and, where given, must not
+# (bilstm_fwd_wide.cu must not launch); on the recurrence backend at 80 both
+# layers run the op at 96: in f32 its sweep is the tensor-core
+# lstm_recurrence_bwd_mid_f32.cu and the cluster sweep must not launch, in
+# bf16 the cluster sweep) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1782,11 +1811,11 @@ WIDTH_STEPS = (
       "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, WIDE_BF16),
-    ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
-                                       "lstm_recurrence_wgrad")),
+    ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
+                                       "lstm_recurrence_wgrad"), ("lstm_recurrence_bwd",)),
     ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                                         "lstm_recurrence_wgrad_mma"),
-     ("lstm_recurrence_fwd_mma",)),
+     ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mid_f32")),
 )
 
 
@@ -1880,7 +1909,10 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     ``E_parts`` (80, 80), H = 80, G = 1, ny = 1, run at 96, the stacked
     layer of the two-layer model at embedding 80 (in bf16 the one-block
     ``bilstm_fwd_wide_mma_resident.cu`` and ``bilstm_bwd_lite_mma_resident.cu``,
-    in f32 ``bilstm_fwd_wide.cu`` and ``bilstm_bwd_lite_f32_resident.cu``);
+    in f32 the one-block ``bilstm_fwd_wide_f32_resident.cu``, both variants
+    also in turns with ``bilstm_fwd_wide.cu`` by name (``cuda_core_ms``) and
+    held against the twin at 5 weight groups, T = 300 (``g5_*``), and
+    ``bilstm_bwd_lite_f32_resident.cu``);
     with E = H = 160-224 layer 0 at those embeddings (in f32
     ``bilstm_fwd_wide_f32.cu``, also at each of its row tiles in turns with
     the dispatch, and ``bilstm_bwd_lite_f32.cu``, in bf16
@@ -1912,6 +1944,7 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
         raise AssertionError(f"the layer at E={E_parts}, H={H} in {cd} runs {picked}")
     mma = fwd_want == "bilstm_fwd_wide_mma"
     fwd_f32 = fwd_want == "bilstm_fwd_wide_f32"
+    one_block_f32 = fwd_want == "bilstm_fwd_wide_f32_resident"
     sfx = "_mma" if mma else ""
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     shape = {"B": B_TRAIN, "T": T_TRAIN, "E": E, "H": H, "padded_H": Hp, "G": G, "ny": ny,
@@ -1947,6 +1980,13 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                         out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd"], 3)
                 finally:
                     L.FWD_WIDE_MMA_UNEVEN_ROWS = keep
+            if one_block_f32:
+                # new, old, old, new: the CUDA-core forward by name on the same operands
+                for k in ("fwd", "fwd_eval"):
+                    old = getattr(L, "bilstm_fwd_wide_train" if k == "fwd" else "bilstm_fwd_wide")
+                    a, b, c = in_turns(calls[k], lambda: old(xg, lengths, w_hh, cd,
+                                                             kernel="bilstm_fwd_wide"), 3)
+                    out[k]["turns_ms"], out[k]["cuda_core_ms"] = (a, b), c
             if fwd_f32:
                 # the train variant at each row tile, in turns with the dispatch
                 for R in L.fwd_wide_f32_rows(Hp):
@@ -1999,6 +2039,21 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                                          f"{out[k + sfx]}")
             del want, ref, res
         del parts, xg, hs_f, hs_b, cs_f, cs_b, args, calls
+    if one_block_f32:
+        # 5 weight groups (each cut into its own 8-row tiles), T = 300
+        parts, lengths, w_ih, w_hh, bias, *_ = train_layer_inputs(
+            E_parts, Hp, G_TRAIN, cd, dev, seed + 1, T=300, ny=ny)
+        xg = L.bilstm_gates(parts, w_ih, bias, cd)
+        want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+        for k, got in (("fwd", L.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)),
+                       ("fwd_eval", L.bilstm_fwd_wide(xg, lengths, w_hh, cd))):
+            res = {f"g5_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(names, got, want)}
+            torch.cuda.synchronize()
+            out[k]["max_abs_err"].update({n: e for n, (e, _) in res.items()})
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "widths", "failed": out[k]})
+                raise AssertionError(f"{fwd_want} disagrees with its twin at 5 groups: {out[k]}")
+        del parts, xg, want, got
     size = torch.empty((), dtype=cd).element_size()
     for key, Hw in (("", Hp), ("true_", H)):
         work = wide_layer_work(E, Hw, G, size, ny)
@@ -2378,8 +2433,8 @@ def phase_widths(dev) -> dict:
     the split wgrad);
     ``wide_cuda_core_kernels`` at embedding 272's layer 0 (H = 288, the bf16
     tensor-core forward and lite sweep), at embedding 80's stacked layer
-    (H = 96: in bf16 the one-block forward and lite sweep; in f32 the CUDA-core
-    forward and the one-block lite sweep) and at layer 0 at E = H = 160,
+    (H = 96: the one-block forward and lite sweep in bf16 and in f32) and at
+    layer 0 at E = H = 160,
     192, 224 (in f32 the f32 tensor-core forward and lite sweep; in bf16
     the bf16 tensor-core forward's kernel for uneven unit groups and lite
     sweep; the forward's
@@ -2436,8 +2491,8 @@ def phase_widths(dev) -> dict:
                                         "bilstm_fwd_wide_mma_resident",
                                         "bilstm_bwd_lite_mma_resident")
     kernels_96_f32 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 52,
-                                            "bilstm_fwd_wide", "bilstm_bwd_lite_f32_resident",
-                                            torch.float32)
+                                            "bilstm_fwd_wide_f32_resident",
+                                            "bilstm_bwd_lite_f32_resident", torch.float32)
     # layer 0 at E = H = 160, 192, 224, 5 groups: in f32 the f32 tensor-core
     # wide forward and lite sweep; in bf16 the bf16 tensor-core forward's
     # kernel for uneven groups and the lite sweep: timed beside their bounds
@@ -3128,7 +3183,8 @@ def phase_wide_kernel(dev) -> dict:
                     [(*work[key], PEAK_F32_FLOPS)])
         timings[name] = t
     timings["row4"] = row4_timings(dev)
-    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
+    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]}"
+                      f"{''.join(f' {c}' for c in k[3:-3])} R={k[-3]}": v
                       for k, v in L._cluster_counts.items()}
     out = {"phase": "wide_kernel", "checks": checks, "ragged_checks": ragged,
            "timings": timings, "wgrad_split": wgrad_split_timings(dev),
@@ -3369,40 +3425,169 @@ def ragged_recurrence_check(dev) -> list:
     return out
 
 
-def cluster_sweep_h128(dev, H=128) -> dict:
-    """The cluster sweep ``lstm_recurrence_bwd.cu`` at the shapes of its main
-    path, the f32 recurrence-backend steps of a one-layer model at
-    embedding 128 (H = 128 > 64, which the tensor-core sweeps do not take):
-    D = 2, 400 rows in 5 weight groups, T = 1500, masks from lengths; held
-    against its plain twin (timed once), then timed beside its bound at the
-    CUDA cores' f32 rate and cuDNN's one-layer backward for the input, TF32
-    off; the cluster forward, its forward there, timed beside its bound and
-    cuDNN's one-layer training forward (``fwd_*``)."""
+def op_sweep_h128(dev, H=128) -> dict:
+    """The op at H = 128 on its main paths' shapes, the one-layer model at
+    embedding 128 on the recurrence backend: D = 2, 400 rows in 5 weight
+    groups, T = 1500. In f32 the sweep is the tensor-core
+    ``lstm_recurrence_bwd_mid_f32.cu`` (three tf32 passes): masks from
+    lengths and with holes, each held against its plain twin (timed once;
+    1e-4 x max(1, max|ref|)) and computed twice (the same bits), then timed
+    in turns with the cluster sweep ``lstm_recurrence_bwd.cu`` by name
+    (``cluster_ms``; its own bound at the CUDA cores' f32 rate beside it)
+    and beside its bound at 495/3 TFLOP/s and cuDNN's one-layer backward for
+    the input, TF32 off; the cluster forward, the f32 forward there, beside
+    its bound and cuDNN's training forward (``fwd_*``). In bf16 the cluster
+    forward and sweep, the dispatch there, held against their twins (3e-2)
+    and timed beside their bytes bounds and cuDNN bf16."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
-    cd, G = torch.float32, G_TRAIN
-    if L.recurrence_sweep_kernel(H, cd) != "lstm_recurrence_bwd":
-        raise AssertionError(f"H={H}'s sweep is {L.recurrence_sweep_kernel(H, cd)}")
-    xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, "lengths", SEED + 90)
-    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
-    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-    want, plain_ms = timed_once(lambda: recurrence_sweep(*args))
-    e, ok = rel_err(L.lstm_recurrence_bwd(*args), want, TOL[cd])
-    torch.cuda.synchronize()
-    out = {"kernel": "lstm_recurrence_bwd", "B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "H": H,
-           "G": G, "dtype": "float32", "mask": "lengths", "max_abs_err": {"dxg": e},
-           "tol": f"{TOL[cd]} x max(1, max|ref|)", "plain_ms": plain_ms,
-           "ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)}
-    if not ok:
-        emit({"phase": "recurrence_kernel", "failed": out})
-        raise AssertionError(f"the cluster sweep disagrees with its plain version: {out}")
-    if L.recurrence_fwd_kernel(H, cd) != "lstm_recurrence_fwd":
-        raise AssertionError(f"H={H}'s forward is {L.recurrence_fwd_kernel(H, cd)}")
-    out["fwd_ms"] = time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd), 3)
-    add_bounds(out, {k: recurrence_work(T_TRAIN, H, G, 4)[k] for k in ("fwd", "bwd")}, cd)
-    del xg, valid, w, dhs, hs, cs, want, args
-    out["fwd_library_ms"], out["library_ms"] = recurrence_library(T_TRAIN, H, dev)
+    G, out = G_TRAIN, {}
+    for cd in (torch.float32, torch.bfloat16):
+        dt = str(cd).replace("torch.", "")
+        size = torch.empty((), dtype=cd).element_size()
+        sweep, fwd = L.recurrence_sweep_kernel(H, cd), L.recurrence_fwd_kernel(H, cd)
+        want_sweep = "lstm_recurrence_bwd_mid_f32" if cd == torch.float32 \
+            else "lstm_recurrence_bwd"
+        if (sweep, fwd) != (want_sweep, "lstm_recurrence_fwd"):
+            raise AssertionError(f"H={H} in {dt} runs {sweep} and {fwd}")
+        o = {"kernel": sweep, "fwd_kernel": fwd, "B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "H": H,
+             "G": G, "dtype": dt, "tol": f"{TOL[cd]} x max(1, max|ref|)", "max_abs_err": {}}
+        for mask in ("lengths", "holes"):
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, mask,
+                                                            SEED + 90)
+            (hs, cs, hn, cn), fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G,
+                                                                               cd))
+            args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+            want, plain_ms = timed_once(lambda: recurrence_sweep(*args))
+            got = L.lstm_recurrence_bwd(*args)
+            res = {f"{mask}_dxg": rel_err(got, want, TOL[cd]),
+                   f"{mask}_twice": (0.0, bool(torch.equal(got, L.lstm_recurrence_bwd(*args))))}
+            if mask == "lengths":
+                res.update({f"fwd_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                    ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd(xg, valid, w, G, cd),
+                    (hs, cs, hn, cn))})
+            torch.cuda.synchronize()
+            o["max_abs_err"].update({n: e for n, (e, _) in res.items()})
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "recurrence_kernel", "failed": o})
+                raise AssertionError(f"the op at H={H} disagrees with its plain version: {o}")
+            new = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
+            if mask == "lengths":
+                o["plain_ms"], o["fwd_plain_ms"] = plain_ms, fwd_plain_ms
+                if cd == torch.float32:
+                    # new, old, old, new: both sweeps in one run, on one card
+                    a, b, c = in_turns(new, lambda: L.lstm_recurrence_bwd(
+                        *args, kernel="lstm_recurrence_bwd"), 3)
+                    o["ms"], o["ms_again"], o["cluster_ms"] = a, b, c
+                else:
+                    o["ms"] = time_ms(new, 3)
+                o["fwd_ms"] = time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd), 3)
+            else:
+                o["holes_ms"] = time_ms(new, 3)
+            del xg, valid, w, dhs, hs, cs, want, got, args
+        work = {k: recurrence_work(T_TRAIN, H, G, size)[k] for k in ("fwd", "bwd")}
+        add_bounds(o, work, cd, {"bwd": kernel_peak(cd, sweep), "fwd": kernel_peak(cd, fwd)})
+        if cd == torch.float32:
+            o["cluster_bound_ms"], o["cluster_bound_by"] = bound(
+                [(*work["bwd"], kernel_peak(cd, "lstm_recurrence_bwd"))])
+        o["fwd_library_ms"], o["library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
+        out[dt] = o
+    return out
+
+
+def mid_f32_instances(dev) -> dict:
+    """The op's f32 sweep ``lstm_recurrence_bwd_mid_f32.cu`` at each width it
+    takes (96-288), D = 2, 400 rows in 5 weight groups: the dispatch held
+    against its twin at T = 300 with masks from lengths (1e-4 x max(1,
+    max|ref|)); then at T = 1500 each instance of the width (blocks a
+    cluster, fragments resident in shared memory or read from L2, row tile)
+    timed in turns with the dispatch (instance, dispatch, dispatch,
+    instance), beside the cluster sweep by name and the bound at 495/3
+    TFLOP/s; each instance's registers and spill bytes (the build's
+    ``-Xptxas -v``), shared memory and the clusters the card holds at
+    once."""
+    import re
+
+    from intrepppid_tpu_torch.ops import _build
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+
+    name, cd, G = "lstm_recurrence_bwd_mid_f32", torch.float32, G_TRAIN
+    log = _build.build_logs.get(name, "").splitlines()
+    built = {}
+    for i, line in enumerate(log):
+        m = re.search(r"mid_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", line)
+        if not m:
+            continue
+        nxt = next((j for j in range(i + 1, len(log)) if "Compiling entry" in log[j]), len(log))
+        tail = " ".join(log[i + 1:nxt])
+        regs = re.search(r"Used (\d+) registers", tail)
+        spill = re.search(r"(\d+) bytes spill stores", tail)
+        built[tuple(int(v) for v in m.groups())] = (int(regs.group(1)) if regs else None,
+                                                   int(spill.group(1)) if spill else None)
+    if not built:
+        raise AssertionError(f"no ptxas report of {name}'s instances")
+
+    def at(cluster, resident, rows, fn):
+        keep = L.REC_MID_F32_CLUSTER, L.REC_MID_F32_FROM_L2, L.REC_MID_F32_ROWS
+        L.REC_MID_F32_CLUSTER = {H: cluster for H in L.REC_MID_F32_WIDTHS}
+        L.REC_MID_F32_FROM_L2 = () if resident else L.REC_MID_F32_WIDTHS
+        L.REC_MID_F32_ROWS = (rows,)
+        try:
+            return fn()
+        finally:
+            L.REC_MID_F32_CLUSTER, L.REC_MID_F32_FROM_L2, L.REC_MID_F32_ROWS = keep
+
+    out = {}
+    for H in L.REC_MID_F32_WIDTHS:
+        if L.recurrence_sweep_kernel(H, cd) != name:
+            raise AssertionError(f"H={H}'s f32 sweep is {L.recurrence_sweep_kernel(H, cd)}")
+        o = {"B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "G": G, "check_T": 300}
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(300, H, G, cd, dev, "lengths",
+                                                        SEED + 95 + H)
+        hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        e, ok = rel_err(L.lstm_recurrence_bwd(*args), recurrence_sweep(*args), TOL[cd])
+        torch.cuda.synchronize()
+        o["max_abs_err"] = e
+        if not ok:
+            emit({"phase": "recurrence_kernel", "failed": {"H": H, **o}})
+            raise AssertionError(f"{name} at H={H} disagrees with its twin: {o}")
+        del xg, valid, w, dhs, hs, cs, args
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, "lengths",
+                                                        SEED + 96 + H)
+        hs, cs, _, _ = L.lstm_recurrence_fwd(xg, valid, w, G, cd)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        wf = L.recurrence_f32_weights(w)
+        new = lambda: L.lstm_recurrence_bwd(*args, wf=wf)  # noqa: E731
+        count = L._max_clusters(name, cd, H, dev)
+        o["plan"] = dict(zip(("cluster", "resident", "rows", "tiles", "smem"),
+                             L.recurrence_mid_f32_plan(B_TRAIN, G, H, lambda c, r, R, m: count(
+                                 R, m, c, int(r)), dirs=D_REC)))
+        o["ms"] = time_ms(new, 3)
+        o["cluster_ms"] = time_ms(lambda: L.lstm_recurrence_bwd(
+            *args, kernel="lstm_recurrence_bwd"), 2)
+        o["bound_ms"], o["bound_by"] = bound(
+            [(*recurrence_work(T_TRAIN, H, G, 4)["bwd"], kernel_peak(cd, name))])
+        o["instances"] = {}
+        for (cluster, resident), widths in L.REC_MID_F32_INSTANCES.items():
+            if H not in widths:
+                continue
+            for rows in L.REC_MID_F32_ROWS:
+                smem = L.recurrence_mid_f32_smem(H, rows, cluster, resident)
+                if smem > L.SMEM_LIMIT:
+                    continue
+                inst = lambda: at(cluster, resident, rows, new)  # noqa: E731
+                a, b, c = in_turns(inst, new, 2)
+                mg = -(-H // (8 * cluster))
+                regs, spill = built.get((cluster, rows, mg, int(resident)), (None, None))
+                o["instances"][f"cl{cluster}_{'res' if resident else 'l2'}_r{rows}"] = {
+                    "ms": 0.5 * (a + b), "dispatch_ms": c, "smem": smem, "registers": regs,
+                    "spill_store_bytes": spill, "tiles": L.mma_tiles(B_TRAIN, G, rows),
+                    "max_active_clusters": count(rows, smem, cluster, int(resident))}
+        del xg, valid, w, dhs, hs, cs, args, wf
+        out[f"h{H}"] = o
     return out
 
 
@@ -3684,7 +3869,7 @@ def phase_recurrence_kernel(dev) -> dict:
                     t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype,
                            {"bwd": kernel_peak(dtype, sweep), "fwd": kernel_peak(dtype, fwd)})
-                library = mask == "lengths" and (dtype == torch.float32 or H != E_SCALED)
+                library = mask == "lengths"
                 if library:
                     # yardsticks the port never calls: cuDNN for the recurrence
                     # and the sweep (it also does the input projection), one
@@ -3712,11 +3897,15 @@ def phase_recurrence_kernel(dev) -> dict:
                     t["fwd_library_ms"], t["bwd_library_ms"] = recurrence_library(
                         T, H, dev, dtype=dtype)
                 timings.append(t)
-    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]} R={k[3]}": v
+    # keys (name, dtype, H, *config, R, smem, device): config is the blocks a
+    # cluster and the resident flag of lstm_recurrence_bwd_mid_f32
+    cluster_counts = {f"{k[0]} {str(k[1]).replace('torch.', '')} H={k[2]}"
+                      f"{''.join(f' {c}' for c in k[3:-3])} R={k[-3]}": v
                       for k, v in L._cluster_counts.items() if k[0].startswith("lstm_rec")}
     ragged = ragged_recurrence_check(dev)
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings, "cluster_h128": cluster_sweep_h128(dev),
+           "timings": timings, "op_h128": op_sweep_h128(dev),
+           "mid_f32": mid_f32_instances(dev),
            "past_288": recurrence_past_288(dev),
            "max_active_clusters": cluster_counts,
            "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
@@ -3782,16 +3971,25 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                         ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
                          "lstm_recurrence_wgrad"),
                         ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
-                         "lstm_recurrence_wgrad_mma", "lstm_recurrence_bwd") + layer_kernels)
-        # the cluster sweep keeps the widths past 64: a one-layer f32 model
-        # at embedding 128 runs it
-        f32_cluster = f32_steps(dev, batches,
-                                ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
-                                 "lstm_recurrence_wgrad"),
-                                ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
-                                 "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma")
-                                + layer_kernels,
-                                embedding_size=128, rnn_num_layers=1)
+                         "lstm_recurrence_wgrad_mma", "lstm_recurrence_bwd",
+                         "lstm_recurrence_bwd_mid_f32") + layer_kernels)
+        # past 64 units a one-layer model at embedding 128: in f32 its sweep
+        # is the tensor-core lstm_recurrence_bwd_mid_f32.cu (the cluster
+        # sweep must not launch), in bf16 the cluster sweep's main path
+        mid = f32_steps(dev, batches,
+                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
+                         "lstm_recurrence_wgrad"),
+                        ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
+                         "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma",
+                         "lstm_recurrence_bwd") + layer_kernels,
+                        embedding_size=128, rnn_num_layers=1)
+        mid_bf16 = f32_steps(dev, batches,
+                             ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                              "lstm_recurrence_wgrad_mma"),
+                             ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
+                              "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad",
+                              "lstm_recurrence_bwd_mid_f32") + layer_kernels,
+                             dtype=torch.bfloat16, embedding_size=128, rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -3804,7 +4002,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # sweep in three tf32 passes, in bf16 the tensor-core kernels past 288,
     # never the cluster kernels (which take up to 288 units); no layer
     # kernel in either
-    old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma")
+    old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
+           "lstm_recurrence_bwd_mid_f32")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
     f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
@@ -3825,7 +4024,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "pairs_per_s": PAIRS_TRAIN / median * 1e3, "losses": losses,
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
            "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
-           "float32_steps_embedding_128": f32_cluster, "float32_steps_embedding_320": f32_320,
+           "float32_steps_embedding_128": mid, "bfloat16_steps_embedding_128": mid_bf16,
+           "float32_steps_embedding_320": f32_320,
            "grad_check": grad_check,
            "grad_check_bf16": grad_check_bf16, "grad_check_embedding_320": grad_check_320}
     emit(out)
@@ -4356,42 +4556,53 @@ def main() -> int:
         "fwd_eval": tuple(f"eval_{n}" for n in ("hs_f", "hs_b", "hn", "cn")),
         "lite": ("dgates",),
     }
-    # the CUDA-core wide forward: its main path is the stacked layer of the
-    # f32 two-layer model at embedding 80 (run at H = 96);
-    # timed in bf16 at 160 / 192 / 224 (bfloat16_hN_*: its main path there),
-    # by name in bf16 at the scaled widths in turns with the tensor-core
-    # kernel (bf16_h256_ms) and in f32 at 160 / 192 / 224 in turns with the
-    # f32 tensor-core one (float32_hN_*). The CUDA-core lite sweep
-    # (bilstm_bwd_lite.cu) runs on no path since the bf16 tensor-core sweep
-    # took 160-224: its times by name stand in bilstm_bwd_lite_mma's entry
+    # the one-block f32 wide forward (both variants, three tf32 passes): its
+    # main path is the stacked layer of the f32 two-layer model at embedding
+    # 80 (run at H = 96). The CUDA-core wide forward (bilstm_fwd_wide.cu)
+    # runs on no path since: its times by name stand in these entries, in
+    # turns with the new kernel at 96 (cuda_core_ms) and on the bf16 scaled
+    # step's operands in turns with the bf16 tensor-core one
+    # (cuda_core_bf16_h256_ms). The CUDA-core lite sweep (bilstm_bwd_lite.cu)
+    # runs on no path since the bf16 tensor-core sweep took 160-224: its
+    # times by name stand in bilstm_bwd_lite_mma's entry
     f32_scaled = scaled["grad_check"]["launches"]
     lite32, wf32, l96 = widths["lite_f32"], widths["wide_f32"], widths["lite_f32_96"]
     k96, k96_f32 = widths["kernels_96"], widths["kernels_96_float32"]
     kf32, kbf16 = widths["kernels_float32_wide"], widths["kernels_bfloat16_wide"]
     g160 = {c["dtype"]: c for c in widths["grad_checks"]
             if c["backend"] == "layer" and c.get("embedding_size") == 160}
-    for key, name in (("fwd", "bilstm_fwd_wide_train"), ("fwd_eval", "bilstm_fwd_wide")):
+    for key, name in (("fwd", "bilstm_fwd_wide_train_f32_resident"),
+                      ("fwd_eval", "bilstm_fwd_wide_f32_resident")):
         main = k96_f32[key]
         cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
-            "source": "intrepppid_tpu_torch/csrc/bilstm_fwd_wide.cu",
+            "source": "intrepppid_tpu_torch/csrc/bilstm_fwd_wide_f32_resident.cu",
             "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:285",
             "launches": e80_launches["float32"][name],
-            "max_abs_err": max(main["max_abs_err"].values()),
+            "max_abs_err": max(list(main["max_abs_err"].values())
+                               + [v for c in tk["ragged_checks"]
+                                  if c["kernel"] == "bilstm_fwd_wide_f32_resident"
+                                  for n, v in c["max_abs_err"].items()
+                                  if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")]),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
-                                    "library_ms")},
-            "bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
-            "bf16_h256_max_abs_err": max(v for c in wk["checks"] if c["route"] == "wide"
-                                         for n, v in c["max_abs_err"].items()
-                                         if n in cuda_core_errs),
+                                    "library_ms", "scaled_err", "turns_ms")},
+            "cuda_core_ms": main["cuda_core_ms"],
+            "cuda_core_bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
+            "cuda_core_bf16_h256_max_abs_err": max(
+                v for c in wk["checks"] if c["route"] == "wide"
+                for n, v in c["max_abs_err"].items() if n in cuda_core_errs),
             "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run "
                     "at H=96, one weight group, one dy stream), 400 rows, T=1500, its main path: "
-                    "launches in that model's f32 steps; bound at the f32 rate at H=96 "
-                    "(true_bound_ms at 80); library: cuDNN one-layer f32 forward at E=160, "
-                    "H=80, TF32 off; bf16_h256_ms: by name on the bf16 scaled step's operands "
-                    "(layer 0 + one E=2x256 layer), in turns with the tensor-core kernel",
+                    "launches in that model's f32 steps; bound at 495/3 TFLOP/s or the bytes at "
+                    "H=96 (true_bound_ms at 80); library: cuDNN one-layer f32 "
+                    + ("training forward" if key == "fwd" else "inference") + " at E=160, "
+                    "H=80, TF32 off; max_abs_err also over 5 weight groups at T=300 and 27 rows "
+                    "in 3 groups at T=1 and 5; turns_ms / cuda_core_ms: new, old, old, new with "
+                    "bilstm_fwd_wide.cu by name on the same operands; cuda_core_bf16_h256_ms: "
+                    "bilstm_fwd_wide.cu by name on the bf16 scaled step's operands (layer 0 + "
+                    "one E=2x256 layer), in turns with the tensor-core kernel",
         }
         if entry["launches"] <= 0:
             raise AssertionError(f"the f32 model at embedding 80 never ran {name}")
@@ -4820,28 +5031,82 @@ def main() -> int:
                               "lstm_recurrence_bwd.cu by name on the same operands (new, old, "
                               "old, new); g5_*: layer 0 (5 groups) alone")
         kernels.append(entry)
-    # the cluster sweep at its main path's shapes: the f32 recurrence-backend
-    # steps of a one-layer model at embedding 128
-    c128 = rk["cluster_h128"]
+    # the op's sweep at 96-288 units: in f32 the tensor-core
+    # lstm_recurrence_bwd_mid_f32.cu, in bf16 the cluster sweep; both at
+    # their main path's shapes, the recurrence-backend steps of a one-layer
+    # model at embedding 128 (h256_*: H = 256, the same rows, in turns with
+    # the cluster sweep by name in f32)
+    o128, mid = rk["op_h128"], rk["mid_f32"]
     h512f = rk["past_288"]["h512"]["float32"]
+    h256 = {t["dtype"]: t for t in rk["timings"]
+            if t["H"] == E_SCALED and t["mask"] == "lengths"}
+    name = "lstm_recurrence_bwd_mid_f32"
+    o = o128["float32"]
+    kernels.append({
+        "name": name,
+        "route": "cuda",
+        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
+        "launches": rpath["float32_steps_embedding_128"]["launches"][name],
+        "max_abs_err": max([v for n, v in o["max_abs_err"].items() if n.endswith("_dxg")]
+                           + [m["max_abs_err"] for m in mid.values()]
+                           + [v for c in rk["checks"] + rk["past_288"]["checks"]
+                              if c.get("sweep") == name
+                              for n, v in c["max_abs_err"].items() if n == "dxg"]),
+        **{k: o[k] for k in ("ms", "ms_again", "plain_ms", "cluster_ms", "holes_ms",
+                             "library_ms", "cluster_bound_ms")},
+        "bound_ms": o["bwd_bound_ms"],
+        "bound_by": o["bwd_bound_by"],
+        "grad_check_launches": sum(c["launches"].get(name, 0)
+                                   for c in widths["grad_checks"]),
+        "h256_ms": h256["float32"]["bwd_ms"], "h256_ms_again": h256["float32"]["bwd_ms_again"],
+        "h256_cluster_ms": h256["float32"]["bwd_cluster_ms"],
+        "h256_plain_ms": h256["float32"]["bwd_plain_ms"],
+        "h256_bound_ms": h256["float32"]["bwd_bound_ms"],
+        "h256_library_ms": h256["float32"]["bwd_library_ms"],
+        "widths_ms": {k: m["ms"] for k, m in mid.items()},
+        "widths_cluster_ms": {k: m["cluster_ms"] for k, m in mid.items()},
+        "widths_bound_ms": {k: m["bound_ms"] for k, m in mid.items()},
+        "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
+                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
+                "holes); bound at 495/3 TFLOP/s (cluster_bound_ms: the cluster sweep's, at "
+                "67); cluster_ms: lstm_recurrence_bwd.cu by name in turns (new, old, old, "
+                "new); library: cuDNN one-layer nn.LSTM backward (input), with the "
+                "projection's dx, TF32 off; grad_check_launches: the recurrence backend's "
+                "gradient and eval steps at embedding 80 (run at 96); h256_*: H=256, the same "
+                "rows; widths_*: each width 96-288 at the same rows on the dispatch's plan; "
+                "max_abs_err over both masks at 128, 96-288 at T=300, 256 and 288 at T=1500",
+    })
+    o = o128["bfloat16"]
     kernels.append({
         "name": "lstm_recurrence_bwd",
         "route": "cuda",
         "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_bwd.cu",
         "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
-        "launches": rpath["float32_steps_embedding_128"]["launches"]["lstm_recurrence_bwd"],
-        "max_abs_err": c128["max_abs_err"]["dxg"],
-        "ms": c128["ms"],
-        "plain_ms": c128["plain_ms"],
-        "bound_ms": c128["bwd_bound_ms"],
-        "bound_by": c128["bwd_bound_by"],
-        "library_ms": c128["library_ms"],
+        "launches": rpath["bfloat16_steps_embedding_128"]["launches"]["lstm_recurrence_bwd"],
+        "max_abs_err": max(v for n, v in o["max_abs_err"].items() if n.endswith("_dxg")),
+        **{k: o[k] for k in ("ms", "plain_ms", "holes_ms", "library_ms")},
+        "bound_ms": o["bwd_bound_ms"],
+        "bound_by": o["bwd_bound_by"],
+        "fwd_ms": o["fwd_ms"], "fwd_bound_ms": o["fwd_bound_ms"],
+        "fwd_bound_by": o["fwd_bound_by"], "fwd_library_ms": o["fwd_library_ms"],
+        "h256_ms": h256["bfloat16"]["bwd_ms"], "h256_bound_ms": h256["bfloat16"]["bwd_bound_ms"],
+        "h256_library_ms": h256["bfloat16"]["bwd_library_ms"],
+        "h256_fwd_ms": h256["bfloat16"]["fwd_ms"],
+        "h256_fwd_bound_ms": h256["bfloat16"]["fwd_bound_ms"],
+        "h256_fwd_library_ms": h256["bfloat16"]["fwd_library_ms"],
+        "float32_ms": o128["float32"]["cluster_ms"],
+        "float32_h256_ms": h256["float32"]["bwd_cluster_ms"],
         "h288_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
                                 if c["sweep"] == "lstm_recurrence_bwd"),
-        "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
-                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths; library: cuDNN "
-                "one-layer nn.LSTM backward (input), with the projection's dx; "
-                "h288_max_abs_err: its 288-thread instance at H=288 in both dtypes",
+        "work": "the layer of the bf16 recurrence-backend model at embedding 128 (5 weight "
+                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
+                "holes); bound: bytes at 3.35 TB/s; library: cuDNN bf16 one-layer nn.LSTM "
+                "backward (input), with the projection's dx; fwd_*: the cluster forward "
+                "lstm_recurrence_fwd.cu there, beside cuDNN bf16's training forward; "
+                "h256_*: H=256, the same rows; float32_*: by name in f32, in turns with "
+                "lstm_recurrence_bwd_mid_f32; h288_max_abs_err: its 288-thread instance at "
+                "H=288 in bf16",
     })
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
@@ -5009,7 +5274,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 38 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 39 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

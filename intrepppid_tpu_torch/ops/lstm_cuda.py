@@ -222,7 +222,10 @@ SMEM_LIMIT = 232448
 # (kWideCluster, kThreads, kFPad, its row tiles and widths), bilstm_gates_f32.cu
 # (kBM, kBN, kBK, kStages, kSmem), bilstm_fwd_wide_f32.cu (kWideCluster,
 # kThreads, kFPad, its widths and its row tiles), bilstm_fwd_wide_mma_resident.cu
-# (kMmaTile, kMaxH, kMaxThreads, kWPad, kFPad, kStages)
+# (kMmaTile, kMaxH, kMaxThreads, kWPad, kFPad, kStages),
+# bilstm_fwd_wide_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads, kHPad, kFPad,
+# kStages), lstm_recurrence_bwd_mid_f32.cu (kThreads, kFPad, its widths, row
+# tiles and instances)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
@@ -347,6 +350,28 @@ LITE_MMA_RESIDENT_WIDTHS = (96,)
 # stacked layer of the bf16 models at embedding 72 and 80, run at 96) and
 # the stages of its cp.async ring of xg tiles
 FWD_WIDE_MMA_RESIDENT_WIDTHS, FWD_WIDE_MMA_RESIDENT_STAGES = (96,), 5
+# the f32 tensor-core wide forward with W_hh in one block
+# (bilstm_fwd_wide_f32_resident.cu, three tf32 passes, 8-row tiles, one warp
+# per 8 units, the weights as f32 mma fragments in registers): the width it
+# is built for (the stacked layer of the f32 model at embedding 80, run at
+# 96), the padding of its f32 h tile rows (16 mod 32 floats) and the stages
+# of its cp.async ring of xg tiles
+FWD_WIDE_F32_RESIDENT_WIDTHS, FWD_WIDE_F32_RESIDENT_H_PAD = (96,), 16
+FWD_WIDE_F32_RESIDENT_STAGES = 5
+# the op's f32 tensor-core sweep at 96-288 (lstm_recurrence_bwd_mid_f32.cu,
+# three tf32 passes on the f32 fragment copy of w): its widths and row
+# tiles; the widths each (blocks a cluster, fragments resident in shared
+# memory) is instantiated for (8-block clusters read from L2 at every width,
+# and resident up to 256; 4-block clusters resident where a block's share
+# of the fragments and its tiles fit, 96-192); the plan's cluster size by
+# width (8 where not named: the faster in turns, PERF.md) and the widths it
+# reads from L2 (288, where no share fits)
+REC_MID_F32_WIDTHS, REC_MID_F32_ROWS = (96, 128, 160, 192, 224, 256, 288), (16, 32)
+REC_MID_F32_INSTANCES = {(8, True): (96, 128, 160, 192, 224, 256),
+                         (8, False): (96, 128, 160, 192, 224, 256, 288),
+                         (4, True): (96, 128, 160, 192)}
+REC_MID_F32_CLUSTER = {96: 4, 128: 4, 160: 4, 192: 4}
+REC_MID_F32_FROM_L2 = (288,)
 # the f32 tensor-core input gates (three tf32 passes): the bf16 one's
 # block tile, input columns a stage (64 bytes of a row), cp.async stages,
 # and its dynamic shared memory (f32 rows padded by 4)
@@ -420,6 +445,10 @@ _SIGNATURES = {
                                      [_P] * 11 + [_I] + [_P] * 3 + [_I] * 7 + [_P]),
     "bilstm_fwd_wide_mma_resident": ("bilstm_fwd_wide_mma_resident",
                                      [_P] * 9 + [_I] * 7 + [_P]),
+    "bilstm_fwd_wide_f32_resident": ("bilstm_fwd_wide_f32_resident",
+                                     [_P] * 9 + [_I] * 7 + [_P]),
+    "lstm_recurrence_bwd_mid_f32": ("lstm_recurrence_bwd_mid_f32",
+                                    [_I] * 3 + [_P] * 9 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -556,6 +585,16 @@ _CONSTANTS = {
         "tile", "max_h", "max_threads", "w_pad", "f_pad", "stages")),
         (MMA_TILE, max(FWD_WIDE_MMA_RESIDENT_WIDTHS), 4 * max(FWD_WIDE_MMA_RESIDENT_WIDTHS),
          MMA_PAD, REC_MMA_F32_PAD, FWD_WIDE_MMA_RESIDENT_STAGES)),
+    "bilstm_fwd_wide_f32_resident": (tuple(f"bilstm_fwd_wide_f32_resident_{c}" for c in (
+        "tile", "max_h", "max_threads", "h_pad", "f_pad", "stages")),
+        (MMA_TILE, max(FWD_WIDE_F32_RESIDENT_WIDTHS), 4 * max(FWD_WIDE_F32_RESIDENT_WIDTHS),
+         FWD_WIDE_F32_RESIDENT_H_PAD, REC_MMA_F32_PAD, FWD_WIDE_F32_RESIDENT_STAGES)),
+    "lstm_recurrence_bwd_mid_f32": (tuple(f"lstm_recurrence_bwd_mid_f32_{c}" for c in (
+        "threads", "pad", "min_h", "max_h", "rows", "resident8", "l2_8", "resident4")),
+        (REC_WIDE_MMA_THREADS, REC_WIDE_F32_PAD, min(REC_MID_F32_WIDTHS),
+         max(REC_MID_F32_WIDTHS), sum(1 << (r // 8) for r in REC_MID_F32_ROWS),
+         *(sum(1 << (h // 32) for h in REC_MID_F32_INSTANCES[k])
+           for k in ((8, True), (8, False), (4, True))))),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -1269,20 +1308,43 @@ def fwd_wide_mma_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
     return 4 * H, smem
 
 
+def fwd_wide_f32_resident_plan(H: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(threads, smem_bytes)`` of the f32 tensor-core wide forward with
+    ``W_hh`` in one block (``csrc/bilstm_fwd_wide_f32_resident.cu``, three
+    tf32 passes), or ValueError for a dtype or width it does not take: it
+    takes float32 at H in ``FWD_WIDE_F32_RESIDENT_WIDTHS`` (96). One warp per
+    8 hidden units; the weights as f32 ``mma.sync`` fragments in registers;
+    shared memory for two f32 h tiles (8 rows of H +
+    ``FWD_WIDE_F32_RESIDENT_H_PAD``) and the ``FWD_WIDE_F32_RESIDENT_STAGES``
+    stages of its cp.async ring of f32 xg tiles (8 rows of 4H + 4)."""
+    if dtype != torch.float32 or H not in FWD_WIDE_F32_RESIDENT_WIDTHS:
+        raise ValueError(
+            f"bilstm_fwd_wide_f32_resident kernel takes float32 with H in "
+            f"{list(FWD_WIDE_F32_RESIDENT_WIDTHS)}, got {dtype}, H={H}")
+    smem = (2 * MMA_TILE * (H + FWD_WIDE_F32_RESIDENT_H_PAD) * 4
+            + FWD_WIDE_F32_RESIDENT_STAGES * MMA_TILE * (4 * H + REC_MMA_F32_PAD) * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bilstm_fwd_wide_f32_resident kernel: H={H} needs {smem} bytes of "
+                         f"shared memory (at most {SMEM_LIMIT})")
+    return 4 * H, smem
+
+
 def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     """The kernel the wide route's recurrence takes, by width and dtype
     alone: ``"bilstm_fwd_wide_mma"`` where ``fwd_wide_mma_check`` passes
     (bf16, H = 128-288 in steps of 32), ``"bilstm_fwd_wide_f32"`` where
     ``fwd_wide_f32_check`` passes (f32 at 128-288),
     ``"bilstm_fwd_wide_mma_resident"`` where ``fwd_wide_mma_resident_plan``
-    takes it (bf16 at 96), else ``"bilstm_fwd_wide"`` where ``wide_check``
-    passes (the widths the tensor-core forwards do not take: f32 at 96, and
-    32 and 64, which no layer runs wide); ValueError naming the refusals
-    otherwise."""
+    takes it (bf16 at 96), ``"bilstm_fwd_wide_f32_resident"`` where
+    ``fwd_wide_f32_resident_plan`` takes it (f32 at 96), else
+    ``"bilstm_fwd_wide"`` where ``wide_check`` passes (the widths the
+    tensor-core forwards do not take: 32 and 64, which no layer runs wide);
+    ValueError naming the refusals otherwise."""
     refusals = []
     for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
                         ("bilstm_fwd_wide_f32", fwd_wide_f32_check),
-                        ("bilstm_fwd_wide_mma_resident", fwd_wide_mma_resident_plan)):
+                        ("bilstm_fwd_wide_mma_resident", fwd_wide_mma_resident_plan),
+                        ("bilstm_fwd_wide_f32_resident", fwd_wide_f32_resident_plan)):
         try:
             check(H, dtype)
             return name
@@ -1455,6 +1517,7 @@ _NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9,
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
                 "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
+                "lstm_recurrence_bwd_mid_f32": [None] * 9 + [1],
                 "lstm_recurrence_fwd_wide_f32": [None] * 7 + [1],
                 "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_f32": [None] * 9}
@@ -1464,13 +1527,15 @@ def _max_clusters(name: str, dtype: torch.dtype, H: int, dev: torch.device):
     # the tensor-core kernels' C entries take no dtype code (one dtype each)
     lead = [] if name.endswith(("_mma", "_f32")) else [_DTYPE_CODES[dtype]]
 
-    def count(R: int, smem: int) -> int:
-        key = (name, dtype, H, R, smem, dev.index)
+    def count(R: int, smem: int, *config: int) -> int:
+        # config: what the C entry takes before the row tile besides ``lead``
+        # (lstm_recurrence_bwd_mid_f32: blocks a cluster, resident)
+        key = (name, dtype, H, *config, R, smem, dev.index)
         if key not in _cluster_counts:
             out = ctypes.c_int(0)
             with torch.cuda.device(dev):
                 err = getattr(_kernels(name), name)(
-                    *lead, R, *_NO_OPERANDS[name], 0, 0, H, 1, 1, smem, None,
+                    *lead, *config, R, *_NO_OPERANDS[name], 0, 0, H, 1, 1, smem, None,
                     ctypes.byref(out))
             _raise_on_error(name, err)
             _cluster_counts[key] = out.value
@@ -2469,8 +2534,8 @@ def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
     """``wrappers``: the CUDA-core wrapper, which counts
     ``csrc/bilstm_fwd_wide.cu``, then the tensor-core ones by kernel name."""
     wrapper, tensor_core = wrappers[0], dict(zip(
-        ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_mma_resident"),
-        wrappers[1:]))
+        ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_mma_resident",
+         "bilstm_fwd_wide_f32_resident"), wrappers[1:]))
     if kernel not in (None, "bilstm_fwd_wide", *tensor_core):
         raise ValueError(f"bilstm_fwd_wide: no wide forward kernel named {kernel!r}")
     name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
@@ -2499,16 +2564,18 @@ def bilstm_fwd_wide(
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
     its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
-    (bf16 at H = 128-288), :func:`bilstm_fwd_wide_f32` (f32 at 128-288) or
-    :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96; their ``.launches``
-    then count them), or ``csrc/bilstm_fwd_wide.cu`` here (f32 at 96).
-    ``kernel="bilstm_fwd_wide"`` asks for the latter by name at the widths
-    ``cuda_core_wide_check`` leaves it (to time it beside the others).
+    (bf16 at H = 128-288), :func:`bilstm_fwd_wide_f32` (f32 at 128-288),
+    :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96) or
+    :func:`bilstm_fwd_wide_f32_resident` (f32 at 96; their ``.launches``
+    then count them), or ``csrc/bilstm_fwd_wide.cu`` here (at 32 and 64,
+    which no layer runs wide). ``kernel="bilstm_fwd_wide"`` asks for the
+    latter by name at the widths ``cuda_core_wide_check`` leaves it (to time
+    it beside the others).
     """
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
     return _fwd_wide_dispatch((bilstm_fwd_wide, bilstm_fwd_wide_mma, bilstm_fwd_wide_f32,
-                               bilstm_fwd_wide_mma_resident), xg,
+                               bilstm_fwd_wide_mma_resident, bilstm_fwd_wide_f32_resident), xg,
                               lengths, w_hh, compute_dtype, kernel, False)
 
 
@@ -2525,13 +2592,15 @@ def bilstm_fwd_wide_train(
     """The train variant of :func:`bilstm_fwd_wide`: also the cell streams
     ``cs_f, cs_b (T, B, H)`` in ``compute_dtype``, after ``hn, cn``; its
     tensor-core kernels through :func:`bilstm_fwd_wide_train_mma`,
-    :func:`bilstm_fwd_wide_train_f32` and
-    :func:`bilstm_fwd_wide_train_mma_resident`."""
+    :func:`bilstm_fwd_wide_train_f32`,
+    :func:`bilstm_fwd_wide_train_mma_resident` and
+    :func:`bilstm_fwd_wide_train_f32_resident`."""
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
     return _fwd_wide_dispatch(
         (bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32,
-         bilstm_fwd_wide_train_mma_resident), xg, lengths, w_hh, compute_dtype, kernel, True)
+         bilstm_fwd_wide_train_mma_resident, bilstm_fwd_wide_train_f32_resident), xg, lengths,
+        w_hh, compute_dtype, kernel, True)
 
 
 bilstm_fwd_wide_train.launches = 0
@@ -2622,15 +2691,16 @@ def bilstm_fwd_wide_train_f32(
 bilstm_fwd_wide_train_f32.launches = 0
 
 
-def _fwd_wide_mma_resident(wrapper, xg, lengths, w_hh, cd, with_states):
-    """The one-block wide forward's body: ``wrapper`` counts its launches.
+def _fwd_wide_resident(wrapper, name, plan, xg, lengths, w_hh, cd, with_states):
+    """The one-block wide forwards' body: ``name`` the kernel
+    (``csrc/<name>.cu``), ``plan(H, dtype)`` its ``(threads, smem)`` or
+    ValueError for what it does not take; ``wrapper`` counts its launches.
     On the CPU the plain twin; under grad mode an operand that requires
     grad is refused; an empty batch launches nothing."""
     _no_graph(xg, w_hh)
     if not xg.is_cuda:
         return bidir_recurrence(xg, lengths, w_hh, cd, with_states=with_states)
-    name = "bilstm_fwd_wide_mma_resident"
-    threads, smem = fwd_wide_mma_resident_plan(xg.shape[-1] // 4, cd)
+    threads, smem = plan(xg.shape[-1] // 4, cd)
     dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
     outs = _wide_fwd_outputs(T, B, H, cd, dev, with_states)
     hs_f, hs_b, hn, cn = outs[:4]
@@ -2638,7 +2708,7 @@ def _fwd_wide_mma_resident(wrapper, xg, lengths, w_hh, cd, with_states):
     if B == 0:
         return outs
     with torch.cuda.device(dev):
-        err = _kernels(name).bilstm_fwd_wide_mma_resident(
+        err = getattr(_kernels(name), name)(
             xg.data_ptr(), lengths.data_ptr(), w_hh.data_ptr(), hs_f.data_ptr(),
             hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b), hn.data_ptr(), cn.data_ptr(),
             T, B, H, G, mma_tiles(B, G), threads, smem,
@@ -2663,8 +2733,9 @@ def bilstm_fwd_wide_mma_resident(
     the rest. Row tiles of 8 are cut inside each weight group, so nothing is
     padded. Its outputs carry no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too."""
-    return _fwd_wide_mma_resident(bilstm_fwd_wide_mma_resident, xg, lengths, w_hh,
-                                  compute_dtype, False)
+    return _fwd_wide_resident(bilstm_fwd_wide_mma_resident, "bilstm_fwd_wide_mma_resident",
+                              fwd_wide_mma_resident_plan, xg, lengths, w_hh, compute_dtype,
+                              False)
 
 
 bilstm_fwd_wide_mma_resident.launches = 0
@@ -2679,11 +2750,52 @@ def bilstm_fwd_wide_train_mma_resident(
     """The train variant of :func:`bilstm_fwd_wide_mma_resident`: also the
     cell streams ``cs_f, cs_b (T, B, H)`` in bfloat16, after ``hn, cn``. It
     gives the eval variant's ``hs`` bit for bit."""
-    return _fwd_wide_mma_resident(bilstm_fwd_wide_train_mma_resident, xg, lengths, w_hh,
-                                  compute_dtype, True)
+    return _fwd_wide_resident(bilstm_fwd_wide_train_mma_resident,
+                              "bilstm_fwd_wide_mma_resident", fwd_wide_mma_resident_plan, xg,
+                              lengths, w_hh, compute_dtype, True)
 
 
 bilstm_fwd_wide_train_mma_resident.launches = 0
+
+
+def bilstm_fwd_wide_f32_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer's recurrence over its input gates in f32 on the tensor
+    cores, three tf32 passes, one block a row tile with ``W_hh`` resident as
+    f32 ``mma.sync`` fragments in registers
+    (``csrc/bilstm_fwd_wide_f32_resident.cu``), eval variant; the contract of
+    :func:`bilstm_fwd_wide`. Takes the widths ``fwd_wide_f32_resident_plan``
+    takes (float32, H = 96) and raises for the rest. Row tiles of 8 are cut
+    inside each weight group, so nothing is padded. Its outputs carry no
+    graph, so under grad mode it refuses an operand that requires grad, on
+    the CPU too."""
+    return _fwd_wide_resident(bilstm_fwd_wide_f32_resident, "bilstm_fwd_wide_f32_resident",
+                              fwd_wide_f32_resident_plan, xg, lengths, w_hh, compute_dtype,
+                              False)
+
+
+bilstm_fwd_wide_f32_resident.launches = 0
+
+
+def bilstm_fwd_wide_train_f32_resident(
+    xg: torch.Tensor,
+    lengths: torch.Tensor,
+    w_hh: torch.Tensor,
+    compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, ...]:
+    """The train variant of :func:`bilstm_fwd_wide_f32_resident`: also the
+    cell streams ``cs_f, cs_b (T, B, H)`` in f32, after ``hn, cn``. It gives
+    the eval variant's ``hs`` bit for bit."""
+    return _fwd_wide_resident(bilstm_fwd_wide_train_f32_resident,
+                              "bilstm_fwd_wide_f32_resident", fwd_wide_f32_resident_plan, xg,
+                              lengths, w_hh, compute_dtype, True)
+
+
+bilstm_fwd_wide_train_f32_resident.launches = 0
 
 
 def _lite_operands(what, xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd):
@@ -3177,9 +3289,10 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; bfloat16
     past ``WIDE_MAX_THREADS`` the tensor-core
     ``"lstm_recurrence_bwd_wide_mma"``, float32 there
-    ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); the cluster
-    kernel ``"lstm_recurrence_bwd"`` for the rest (96 to 288); ValueError
-    for what none takes."""
+    ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); float32 from 96
+    to 288 the tensor-core ``"lstm_recurrence_bwd_mid_f32"`` (three tf32
+    passes); the cluster kernel ``"lstm_recurrence_bwd"`` for the rest
+    (bfloat16 from 96 to 288); ValueError for what none takes."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
@@ -3187,7 +3300,65 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     if H > WIDE_MAX_THREADS:
         return "lstm_recurrence_bwd_wide_mma" if compute_dtype == torch.bfloat16 \
             else "lstm_recurrence_bwd_wide_f32"
+    if compute_dtype == torch.float32:
+        return "lstm_recurrence_bwd_mid_f32"
     return "lstm_recurrence_bwd"
+
+
+def recurrence_mid_f32_check(H: int, compute_dtype: torch.dtype) -> None:
+    """ValueError for a width or compute dtype the recurrence op's f32
+    tensor-core sweep at 96-288 (``lstm_recurrence_bwd_mid_f32``) does not
+    take: it takes float32 at H in ``REC_MID_F32_WIDTHS``."""
+    if compute_dtype != torch.float32 or H not in REC_MID_F32_WIDTHS:
+        raise ValueError(
+            f"lstm_recurrence_bwd_mid_f32 takes compute dtype float32 with H in "
+            f"{list(REC_MID_F32_WIDTHS)}, got H={H}, {compute_dtype}")
+
+
+def recurrence_mid_f32_smem(H: int, rows: int, cluster: int, resident: bool) -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_bwd_mid_f32`` at
+    H units, a row tile of ``rows`` and ``cluster`` blocks a cluster
+    (``csrc/lstm_recurrence_bwd_mid_f32.cu:smem_bytes``): with ``resident``
+    the block's share of the f32 weight fragments (128 bytes a unit group
+    and input, for the most groups a block owns, ceil(H / 8 / cluster)),
+    then the f32 h_prev tile and the block's f32 dgates tile (32 gate
+    columns a group), rows padded by ``REC_WIDE_F32_PAD``, and the f32
+    partial dh of all H units (rows padded to 8 mod 16). ValueError for a
+    width ``recurrence_mid_f32_check`` refuses or a combination with no
+    instance (``REC_MID_F32_INSTANCES``, ``REC_MID_F32_ROWS``)."""
+    recurrence_mid_f32_check(H, torch.float32)
+    if rows not in REC_MID_F32_ROWS or H not in REC_MID_F32_INSTANCES.get(
+            (cluster, bool(resident)), ()):
+        raise ValueError(f"lstm_recurrence_bwd_mid_f32: no instance for a row tile of {rows}, "
+                         f"{cluster}-block clusters, resident={bool(resident)} at H={H}")
+    groups, pad = -(-H // (8 * cluster)), REC_WIDE_F32_PAD
+    return ((groups * H * 128 if resident else 0) + rows * (H + pad) * 4
+            + rows * (32 * groups + pad) * 4 + H * (rows + (8 - rows) % 16) * 4)
+
+
+def recurrence_mid_f32_plan(B: int, G: int, H: int, max_clusters, dirs: int = 2):
+    """``(cluster, resident, rows, tiles, smem_bytes)`` of a launch of
+    ``lstm_recurrence_bwd_mid_f32``: ``REC_MID_F32_CLUSTER``'s blocks a
+    cluster at H (8 where it names none), the fragments resident unless H
+    is in ``REC_MID_F32_FROM_L2``, and among ``REC_MID_F32_ROWS`` the row
+    tile whose clusters fill the card in the fewest waves, then the
+    smallest. ``max_clusters(cluster, resident, rows, smem)`` is how many
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    cluster = REC_MID_F32_CLUSTER.get(H, WIDE_CLUSTER)
+    resident = H not in REC_MID_F32_FROM_L2
+    best = None
+    for rows in REC_MID_F32_ROWS:
+        smem = recurrence_mid_f32_smem(H, rows, cluster, resident)
+        if smem > SMEM_LIMIT:
+            continue
+        tiles = mma_tiles(B, G, rows)
+        waves = -(-dirs * tiles // max(1, max_clusters(cluster, resident, rows, smem)))
+        if best is None or waves < best[0]:
+            best = (waves, rows, tiles, smem)
+    if best is None:
+        raise ValueError(f"lstm_recurrence_bwd_mid_f32: H={H} leaves no row tile in shared "
+                         f"memory")
+    return (cluster, resident) + best[1:]
 
 
 def recurrence_wide_mma_smem(kind: str, H: int, rows: int) -> int:
@@ -3534,18 +3705,19 @@ def lstm_recurrence_bwd(
     On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
     for its width and dtype: a tensor-core one through
     :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32`,
-    :func:`lstm_recurrence_bwd_wide_mma` or
-    :func:`lstm_recurrence_bwd_wide_f32` (whose ``.launches`` then counts
+    :func:`lstm_recurrence_bwd_wide_mma`,
+    :func:`lstm_recurrence_bwd_wide_f32` or
+    :func:`lstm_recurrence_bwd_mid_f32` (whose ``.launches`` then counts
     it; ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where
-    the caller has it, goes to the last), or the cluster kernel here (up to
-    288 units). ``kernel="lstm_recurrence_bwd"`` asks for the latter by name
-    (to time it beside the others)."""
+    the caller has it, goes to the last two), or the cluster kernel here (up
+    to 288 units: bf16 from 96). ``kernel="lstm_recurrence_bwd"`` asks for
+    the latter by name (to time it beside the others; in f32 too)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, *_TILE_SWEEP, *_WIDE_SWEEP):
+    if kernel not in (None, name, "lstm_recurrence_bwd_mid_f32", *_TILE_SWEEP, *_WIDE_SWEEP):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
@@ -3554,6 +3726,8 @@ def lstm_recurrence_bwd(
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     if kernel == "lstm_recurrence_bwd_wide_f32":
         return lstm_recurrence_bwd_wide_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
+    if kernel == "lstm_recurrence_bwd_mid_f32":
+        return lstm_recurrence_bwd_mid_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel in _WIDE_SWEEP:
         return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     _cluster_width(name, H)
@@ -3614,6 +3788,51 @@ def lstm_recurrence_bwd_wide_f32(
 
 
 lstm_recurrence_bwd_wide_f32.launches = 0
+
+
+def lstm_recurrence_bwd_mid_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype, wf: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The recurrence's backward sweep in f32 on the tensor cores at 96-288
+    units, three tf32 passes a product (``csrc/lstm_recurrence_bwd_mid_f32.cu``:
+    clusters of 4 or 8 blocks, each holding its share of the f32 fragment
+    copy of the weights, ``recurrence_f32_weights``, in shared memory (read
+    from L2 at 288); the (unit group, n8 tile) items dealt over the warps;
+    the partial dh summed in rank order); the contract of
+    :func:`lstm_recurrence_bwd`. ``wf`` is that copy of ``w`` where the
+    caller has it, else it is built here. Takes float32 at H in
+    ``REC_MID_F32_WIDTHS`` and raises for the rest; the launch is
+    ``recurrence_mid_f32_plan``'s. On the CPU the plain twin; under grad
+    mode an operand that requires grad is refused."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_bwd_mid_f32"
+    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
+        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    recurrence_mid_f32_check(H, cd)
+    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * D * T == 0:
+        return dxg
+    count = _max_clusters(name, cd, H, dev)
+    cluster, resident, rows, tiles, smem = recurrence_mid_f32_plan(
+        B, G, H, lambda c, r, R, smem: count(R, smem, c, int(r)), dirs=D)
+    wf = _f32_copy(w, wf)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_bwd_mid_f32(
+            cluster, int(resident), rows, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn),
+            dxg.data_ptr(), D, T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_bwd_mid_f32.launches += 1
+    return dxg
+
+
+lstm_recurrence_bwd_mid_f32.launches = 0
 # the recurrence sweeps past 288 on the tensor cores, by kernel name
 _WIDE_SWEEP = {"lstm_recurrence_bwd_wide_mma": lstm_recurrence_bwd_wide_mma,
                "lstm_recurrence_bwd_wide_f32": lstm_recurrence_bwd_wide_f32}

@@ -179,7 +179,8 @@ class FusedLSTMRecurrence(torch.autograd.Function):
     card's widest (``REC_MAX_H``) a CUDA tensor raises and a CPU tensor
     runs the plain versions unpadded. On the card in f32 past 288 units the
     forward and the sweep read one f32 fragment copy of the weights
-    (``lstm_cuda.recurrence_f32_weights``), built once here."""
+    (``lstm_cuda.recurrence_f32_weights``), built once here; from 96 to 288
+    only the sweep reads it, and its wrapper builds it once a backward."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):

@@ -65,7 +65,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_fwd_wide_f32",
                        "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma",
-                       "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_mma_resident"}
+                       "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_mma_resident",
+                       "bilstm_fwd_wide_f32_resident", "lstm_recurrence_bwd_mid_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -91,6 +92,7 @@ def test_every_kernel_source_is_built_and_bound():
                       ("bilstm_bwd_lite_f32_resident", "mma_tf32("),
                       ("bilstm_bwd_lite_mma_resident", "mma_bf16("),
                       ("bilstm_fwd_wide_mma_resident", "mma_bf16("),
+                      ("bilstm_fwd_wide_f32_resident", "mma_tf32("),
                       ("lstm_recurrence_bwd_f32", "mma_tf32("), ("bilstm_wgrad_f32", "mma_tf32(")):
         text = kernel_source(name)
         assert '#include "bilstm_mma.cuh"' in text and mma in text
@@ -108,6 +110,12 @@ def test_every_kernel_source_is_built_and_bound():
     text = kernel_source("bilstm_fwd_wide_mma_resident").rsplit("#include", 1)[1]
     assert text.count("mma_bf16(") == 2 and "ldmatrix_x4(" in text and "cp_async16(" in text
     assert "ldmatrix_x4_trans(" not in text and "w_s" not in text.split()
+    # its f32 twin: the same ring and two chains, the gate product in three
+    # tf32 passes on f32 register fragments split where they are used, its B
+    # operand one 16-byte shared load a chunk from the f32 h tile (no ldmatrix)
+    text = kernel_source("bilstm_fwd_wide_f32_resident").rsplit("#include", 1)[1]
+    assert text.count("mma_tf32(") == 3 and text.count("split_tf32(") == 5
+    assert "cp_async16(" in text and "ldmatrix" not in text and "w_s" not in text.split()
     # the tensor-core lite sweep keeps the 8-block cluster split: both of its
     # products on mma.sync (the dh product through ldmatrix.trans), the
     # partial sums exchanged through distributed shared memory; so does its
@@ -156,7 +164,8 @@ def test_every_kernel_source_is_built_and_bound():
             ("lstm_recurrence_bwd_wide_f32", "ld_dsmem_f2(", "launch_wide_dirs("),
             ("lstm_recurrence_fwd_wide_f32", "st_dsmem_v4(", "launch_wide_dirs("),
             ("bilstm_bwd_lite_f32", "ld_dsmem_f2(", "launch_wide("),
-            ("bilstm_fwd_wide_f32", "st_dsmem_v4(", "launch_wide(")):
+            ("bilstm_fwd_wide_f32", "st_dsmem_v4(", "launch_wide("),
+            ("lstm_recurrence_bwd_mid_f32", "ld_dsmem_f2(", "cudaLaunchKernelEx(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "lstm_recurrence_wide_f32.cuh"' in text
         body = text.rsplit("#include", 1)[1]
@@ -168,6 +177,12 @@ def test_every_kernel_source_is_built_and_bound():
         assert "dh_fragment(" in body and "mma3(" in body and "chunk_load(" in body, name
     body = (_build.CSRC / "lstm_recurrence_fwd_wide_f32.cu").read_text().rsplit("#include", 1)[1]
     assert "gate_mma_f32<" in body
+    # the op's f32 sweep at 96-288: the lite sweep's item deal and both
+    # products in three tf32 passes, its clusters of 4 or 8 blocks, the
+    # fragments copied into shared memory (resident instances) or read from L2
+    body = (_build.CSRC / "lstm_recurrence_bwd_mid_f32.cu").read_text().rsplit("#include", 1)[1]
+    assert "dh_fragment(" in body and "mma3(" in body and "deal_items(" in body
+    assert "clusterDim.x = CL" in body and "ldg_weight(" in body and "w_s[idx]" in body
     # the CUDA-core cluster kernels dispatch each width to a block instance
     # (256 threads, and 288 where a route takes 257-288 units in the dtype:
     # the recurrence op in both, the wide forward in neither); none reads its

@@ -662,9 +662,18 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
     (64, torch.bfloat16, "lstm_recurrence_bwd_mma"), (32, torch.bfloat16, "lstm_recurrence_bwd_mma"),
     (64, torch.float32, "lstm_recurrence_bwd_f32"), (32, torch.float32, "lstm_recurrence_bwd_f32"),
     (128, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.bfloat16, "lstm_recurrence_bwd"),
-    (96, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.float32, "lstm_recurrence_bwd"),
-    (96, torch.float32, "lstm_recurrence_bwd"), (128, torch.float32, "lstm_recurrence_bwd"),
-    (288, torch.bfloat16, "lstm_recurrence_bwd"), (288, torch.float32, "lstm_recurrence_bwd"),
+    (96, torch.bfloat16, "lstm_recurrence_bwd"),
+    # f32 at 96-288: the tensor-core sweep in three tf32 passes (ids kept from
+    # the cluster sweep's cases)
+    pytest.param(256, torch.float32, "lstm_recurrence_bwd_mid_f32",
+                 id="256-dtype7-lstm_recurrence_bwd"),
+    pytest.param(96, torch.float32, "lstm_recurrence_bwd_mid_f32",
+                 id="96-dtype8-lstm_recurrence_bwd"),
+    pytest.param(128, torch.float32, "lstm_recurrence_bwd_mid_f32",
+                 id="128-dtype9-lstm_recurrence_bwd"),
+    (288, torch.bfloat16, "lstm_recurrence_bwd"),
+    pytest.param(288, torch.float32, "lstm_recurrence_bwd_mid_f32",
+                 id="288-dtype11-lstm_recurrence_bwd"),
     (320, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
     (512, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
     (1024, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
@@ -677,8 +686,9 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     """bf16 at H = 32 / 64 takes the tensor-core sweep, f32 there its three
     tf32 passes (whose pre-split weights fit one block); past 288 the
     tensor-core sweeps of the wide widths, bf16 and (three tf32 passes)
-    f32, up to the op's 1024 on the card; the cluster sweep keeps the rest
-    from H = 96 to 288."""
+    f32, up to the op's 1024 on the card; from H = 96 to 288 f32 takes the
+    tensor-core sweep of those widths (three tf32 passes, a row tile that
+    fits shared memory at each) and the cluster sweep keeps bf16."""
     if kernel is None:
         with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
             lstm_cuda.recurrence_sweep_kernel(H, dtype)
@@ -694,6 +704,11 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     if kernel.endswith("wide_f32"):
         assert min(lstm_cuda.recurrence_wide_f32_smem(H, R) for R in
                    lstm_cuda.REC_WIDE_F32_ROWS[1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("mid_f32"):
+        cluster, resident = (lstm_cuda.REC_MID_F32_CLUSTER.get(H, 8),
+                             H not in lstm_cuda.REC_MID_F32_FROM_L2)
+        assert min(lstm_cuda.recurrence_mid_f32_smem(H, R, cluster, resident) for R in
+                   lstm_cuda.REC_MID_F32_ROWS) <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,dtype,kernel", [
@@ -754,8 +769,9 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
     and bf16 names the forward, sweep and wgrad it named before the
     tensor-core kernels past 288, except the bf16 forward and sweep there,
-    the f32 forward and sweep there (three tf32 passes) and the bf16
-    forward at 32 and 64 (the tensor-core one with one block a row tile);
+    the f32 forward and sweep there (three tf32 passes), the bf16
+    forward at 32 and 64 (the tensor-core one with one block a row tile)
+    and the f32 sweep from 96 to 288 (the tensor-core one of those widths);
     what was refused stays refused."""
     def parent(H, dtype):
         sweep = "lstm_recurrence_bwd"
@@ -782,6 +798,8 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
                 want = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32", want[2])
             if dtype == torch.bfloat16 and H in (32, 64):
                 want = ("lstm_recurrence_fwd_mma",) + want[1:]
+            if dtype == torch.float32 and 96 <= H <= 288:
+                want = (want[0], "lstm_recurrence_bwd_mid_f32", want[2])
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
 
 
@@ -1668,7 +1686,10 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         (288, torch.bfloat16, "bilstm_fwd_wide_mma"),  # its instance for uneven groups
         (320, torch.float32, None),
         (256, torch.float16, None),
-        (96, torch.float32, "bilstm_fwd_wide"),  # f32 at 96 keeps the cluster kernel
+        # f32 at 96: one block, W_hh in registers, three tf32 passes (id kept
+        # from the cluster kernel's case)
+        pytest.param(96, torch.float32, "bilstm_fwd_wide_f32_resident",
+                     id="96-dtype12-bilstm_fwd_wide"),
         pytest.param(160, torch.bfloat16, "bilstm_fwd_wide_mma",
                      id="160-dtype13-bilstm_fwd_wide"),
         # f32 at 160-224: the f32 tensor-core forward's instances for 2 / 3, 3
@@ -1694,7 +1715,7 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     ``test_tensor_core_wide_kernels_change_no_route``: every (E_parts, H)
     keeps its route, every wide layer has a forward kernel (the tensor-core
     one in bf16 at H = 128, 256 and 288 and in f32 at 128-288, the one-block
-    one in bf16 at 96),
+    ones in bf16 and f32 at 96),
     and every layer whose widths are whole
     128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
     too), in bf16 every layer with H % 8 == 0 (the masked last gate tile);
@@ -1711,6 +1732,7 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
             if route == "wide":
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
                     "bilstm_fwd_wide_mma_resident" if (H, bf16) == (96, True)
+                    else "bilstm_fwd_wide_f32_resident" if H == 96
                     else "bilstm_fwd_wide_f32" if not bf16 and H % 32 == 0 and H >= 128
                     else "bilstm_fwd_wide" if not bf16
                     else "bilstm_fwd_wide_mma")
@@ -1907,7 +1929,9 @@ def test_gates_kernel_takes_f32_on_the_tensor_cores_at_every_wide_width(H, parts
 
 
 @pytest.mark.parametrize("H,kernel", [
-    (96, "bilstm_fwd_wide"), (128, "bilstm_fwd_wide_f32"),
+    # 96: the one-block forward (id kept from the CUDA-core forward's case)
+    pytest.param(96, "bilstm_fwd_wide_f32_resident", id="96-bilstm_fwd_wide"),
+    (128, "bilstm_fwd_wide_f32"),
     # 160-224: the instances for 2 / 3, 3 and 3 / 4 unit groups a block (ids
     # kept from the CUDA-core forward's cases)
     pytest.param(160, "bilstm_fwd_wide_f32", id="160-bilstm_fwd_wide"),
@@ -1916,8 +1940,8 @@ def test_gates_kernel_takes_f32_on_the_tensor_cores_at_every_wide_width(H, parts
     (256, "bilstm_fwd_wide_f32"), (288, "bilstm_fwd_wide_f32")])
 def test_wide_fwd_kernel_takes_f32_at_the_tensor_core_widths(H, kernel):
     """The f32 wide forward runs on the tensor cores at the widths of the
-    f32 lite sweep (128-288); the CUDA-core forward keeps 96. Its check
-    refuses bf16 and the other widths."""
+    f32 lite sweep (128-288), and at 96 on the one-block tensor-core
+    forward. Its check refuses bf16 and the other widths."""
     assert lstm_cuda.wide_fwd_kernel(H, torch.float32) == kernel
     assert (kernel == "bilstm_fwd_wide_f32") == (H in lstm_cuda.FWD_WIDE_F32_WIDTHS)
     if kernel == "bilstm_fwd_wide_f32":
@@ -2291,7 +2315,7 @@ def test_fwd_wide_mma_resident_plan_and_dispatch():
     assert lstm_cuda.FWD_WIDE_MMA_RESIDENT_WIDTHS == (96,)
     assert 2 * lstm_cuda.mma_tiles(400, 1) == 100
     assert lstm_cuda.wide_fwd_kernel(96, bf16) == "bilstm_fwd_wide_mma_resident"
-    assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide"
+    assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide_f32_resident"
     for H in (160, 192, 224):
         assert lstm_cuda.wide_fwd_kernel(H, f32) == "bilstm_fwd_wide_f32"
         assert lstm_cuda.wide_fwd_kernel(H, bf16) == "bilstm_fwd_wide_mma"
@@ -3658,8 +3682,9 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
     ones), the stacked layer padded to 96 on the wide route (its lite sweep
     in f32 the one-block ``bilstm_bwd_lite_f32_resident.cu``, in bf16 the
     one-block ``bilstm_bwd_lite_mma_resident.cu``, never
-    ``bilstm_bwd_lite.cu``; its forward in f32 ``bilstm_fwd_wide.cu``, in
-    bf16 the one-block ``bilstm_fwd_wide_mma_resident.cu``); its gradients
+    ``bilstm_bwd_lite.cu``; its forward in f32 the one-block
+    ``bilstm_fwd_wide_f32_resident.cu``, in bf16 the one-block
+    ``bilstm_fwd_wide_mma_resident.cu``, never ``bilstm_fwd_wide.cu``); its gradients
     equal the CPU plain path's (1e-4
     x max(1, max|grad|) in f32, 2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3668,13 +3693,14 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
                 lstm_cuda.bilstm_bwd_lite_f32_resident,
                 lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32,
                 lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma_resident)
+                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train_f32_resident)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
         int(f32), int(not f32), 0, int(f32), 0, int(f32), int(not f32), int(not f32),
-        int(f32), int(not f32)]
+        0, int(not f32), int(f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -5826,3 +5852,349 @@ def test_wgrad_split_at_the_scaled_shape_on_card(cuda_device):
         _close(got, want, 3e-2)
         _close(got[:1], lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, G)[:1], 3e-2)
         del dgc, parts, hs_f, hs_b, want, got, again
+
+
+# ---- the op's f32 sweep at 96-288 and the one-block f32 wide forward at 96
+def test_fwd_wide_f32_resident_plan_and_dispatch():
+    """The f32 wide forward at H = 96 (the stacked layer of the f32 model at
+    embedding 80, run at 96) takes the one-block tensor-core forward in
+    three tf32 passes: 12 warps, one per 8 units, 384 threads; the f32
+    weights in registers (2 m16 tiles x 12 k8 steps x 4 = 96 a thread);
+    shared memory for two f32 h tiles (8 rows of 96 + 16) and five ring
+    stages of the f32 xg tile (8 rows of 388): 7,168 + 62,080 = 69,248
+    bytes; 100 blocks at 400 rows in one group. No layer changes route or
+    padded shape; the CUDA-core forward keeps 32 and 64 (where no layer
+    runs wide) and f32 at 96 by name."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    threads, smem = lstm_cuda.fwd_wide_f32_resident_plan(96, f32)
+    assert threads == 384 == 4 * 96 and 2 * 12 * 4 == 96
+    assert smem == 2 * 8 * 112 * 4 + 5 * 8 * 388 * 4 == 69248 <= lstm_cuda.SMEM_LIMIT
+    assert (96 + lstm_cuda.FWD_WIDE_F32_RESIDENT_H_PAD) % 32 == 16  # 8 lanes' B loads: 32 banks
+    assert lstm_cuda.FWD_WIDE_F32_RESIDENT_WIDTHS == (96,)
+    assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide_f32_resident"
+    assert lstm_cuda.wide_fwd_kernel(96, bf16) == "bilstm_fwd_wide_mma_resident"
+    for H in (32, 64):
+        assert lstm_cuda.wide_fwd_kernel(H, f32) == "bilstm_fwd_wide"
+    lstm_cuda.cuda_core_wide_check("bilstm_fwd_wide", 96, f32)  # by name it still runs
+    for H, dtype in ((96, bf16), (128, f32), (160, f32), (64, f32), (80, f32)):
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32_resident kernel takes float32"):
+            lstm_cuda.fwd_wide_f32_resident_plan(H, dtype)
+    assert lstm_cuda.layer_route([80, 80], 80, f32) == "wide"
+    assert lstm_cuda.padded_width([80, 80], 80, f32) == 96
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_fwd_wide_f32_resident_wrappers_take_plain_versions_on_cpu(G):
+    """On the CPU the one-block f32 wide forward (both variants), the
+    dispatch and the cluster kernel asked for by name run the plain twin
+    bit for bit and launch nothing; under grad mode the wrappers refuse an
+    operand that requires grad."""
+    cpu, cd, H = torch.device("cpu"), torch.float32, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 9, [32, 32], H, G, cd, cpu)
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
+                lstm_cuda.bilstm_fwd_wide_f32_resident,
+                lstm_cuda.bilstm_fwd_wide_train_f32_resident)
+    before = [f.launches for f in wrappers]
+    for got in (lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+        assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
+    for got in (lstm_cuda.bilstm_fwd_wide_f32_resident(xg, lengths, w_hh, cd),
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
+        assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
+    for fwd in wrappers[2:]:
+        with pytest.raises(RuntimeError, match="no autograd graph"):
+            fwd(xg.clone().requires_grad_(), lengths, w_hh, cd)
+        with torch.no_grad():
+            fwd(xg, lengths, w_hh.clone().requires_grad_(), cd)
+
+
+@pytest.mark.parametrize("H,rows,cluster,resident,want", [
+    (96, 32, 4, True, 3 * 96 * 128 + 32 * 112 * 4 + 32 * 112 * 4 + 96 * 40 * 4),
+    (128, 32, 4, True, 4 * 128 * 128 + 32 * 144 * 4 + 32 * 144 * 4 + 128 * 40 * 4),
+    (128, 16, 8, True, 2 * 128 * 128 + 16 * 144 * 4 + 16 * 80 * 4 + 128 * 24 * 4),
+    (128, 32, 8, False, 32 * 144 * 4 + 32 * 80 * 4 + 128 * 40 * 4),
+    (160, 32, 4, True, 5 * 160 * 128 + 32 * 176 * 4 + 32 * 176 * 4 + 160 * 40 * 4),
+    (192, 32, 4, True, 6 * 192 * 128 + 32 * 208 * 4 + 32 * 208 * 4 + 192 * 40 * 4),
+    (224, 32, 8, True, 4 * 224 * 128 + 32 * 240 * 4 + 32 * 144 * 4 + 224 * 40 * 4),
+    (256, 32, 8, True, 4 * 256 * 128 + 32 * 272 * 4 + 32 * 144 * 4 + 256 * 40 * 4),
+    (288, 32, 8, False, 32 * 304 * 4 + 32 * 176 * 4 + 288 * 40 * 4),
+    (288, 16, 8, False, 16 * 304 * 4 + 16 * 176 * 4 + 288 * 24 * 4)])
+def test_recurrence_mid_f32_smem_and_plan(H, rows, cluster, resident, want):
+    """The op's f32 sweep at 96-288 (csrc/lstm_recurrence_bwd_mid_f32.cu:
+    smem_bytes): with the fragments resident, the block's share, 128 bytes
+    a unit group and input for the most groups a block owns
+    (ceil(H / 8 / cluster)); the f32 h_prev tile (rows of H + 16), the
+    dgates tile (32 columns a group + 16) and the partial dh (H rows of 8
+    mod 16 floats). The 4-block share fits at 96-192 (231,424 bytes at 192
+    and 32 rows), the 8-block one to 256 (225,280), none at 288, which the
+    plan reads from L2. At the train shape (400 rows in 5 groups, D = 2) the
+    plan takes 32-row tiles: 30 clusters, one wave where the card holds 30
+    4-block clusters, two of 15 8-block ones. Combinations without an
+    instance are refused."""
+    assert lstm_cuda.recurrence_mid_f32_smem(H, rows, cluster, resident) == want
+    assert want <= lstm_cuda.SMEM_LIMIT
+    plan = lstm_cuda.recurrence_mid_f32_plan(
+        400, 5, H, lambda c, r, R, smem: {4: 30, 8: 15}[c])
+    assert plan[:3] == (lstm_cuda.REC_MID_F32_CLUSTER.get(H, 8),
+                        H not in lstm_cuda.REC_MID_F32_FROM_L2, 32)
+    assert plan[3] == lstm_cuda.mma_tiles(400, 5, 32) == 15
+    assert plan[4] == lstm_cuda.recurrence_mid_f32_smem(H, 32, plan[0], plan[1])
+    for bad in ((H, 48, cluster, resident), (H, rows, 2, True), (H, rows, 4, False)):
+        with pytest.raises(ValueError, match="no instance"):
+            lstm_cuda.recurrence_mid_f32_smem(*bad)
+    with pytest.raises(ValueError, match="no instance"):
+        lstm_cuda.recurrence_mid_f32_smem(288, 32, 8, True)
+    with pytest.raises(ValueError, match="no instance"):
+        lstm_cuda.recurrence_mid_f32_smem(224, 32, 4, True)
+    for h, dtype in ((64, torch.float32), (320, torch.float32), (128, torch.bfloat16),
+                     (100, torch.float32)):
+        with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_f32 takes compute dtype"):
+            lstm_cuda.recurrence_mid_f32_check(h, dtype)
+
+
+@pytest.mark.parametrize("H", [96, 160, 288])
+def test_recurrence_mid_f32_wrapper_takes_plain_version_on_cpu(H):
+    """On the CPU the op's f32 sweep at 96-288, the dispatch and the
+    cluster sweep asked for by name run the plain twin bit for bit and
+    launch nothing, with the f32 fragment copy handed in or not; under grad
+    mode an operand that requires grad is refused."""
+    T, D, B, G, cd = 4, 2, 6, 2, torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
+                                                  "holes", seed=H)
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    want = recurrence_sweep(*args)
+    wrappers = (lstm_cuda.lstm_recurrence_bwd_mid_f32, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    wf = lstm_cuda.recurrence_f32_weights(w)
+    for got in (lstm_cuda.lstm_recurrence_bwd_mid_f32(*args),
+                lstm_cuda.lstm_recurrence_bwd_mid_f32(*args, wf=wf),
+                lstm_cuda.lstm_recurrence_bwd(*args),
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_f32"),
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")):
+        assert torch.equal(got, want)
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_mid_f32(xg, valid, w.clone().requires_grad_(), *args[3:])
+
+
+def _mid_f32_instances():
+    """(H, blocks a cluster, resident, row tile) of every instance of the
+    op's f32 sweep at 96-288."""
+    return [(H, c, r, rows) for (c, r), widths in lstm_cuda.REC_MID_F32_INSTANCES.items()
+            for H in widths for rows in lstm_cuda.REC_MID_F32_ROWS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,mask", [(1, 30, 300, "lengths"), (5, 40, 300, "holes"),
+                                        (5, 65, 1, "lengths"), (3, 27, 7, "off")])
+@pytest.mark.parametrize("H,cluster,resident,rows", _mid_f32_instances())
+def test_recurrence_mid_f32_matches_plain_on_card(cuda_device, monkeypatch, H, cluster,
+                                                  resident, rows, G, B, T, mask):
+    """Every instance of the op's f32 sweep at 96-288 (blocks a cluster,
+    fragments resident or read from L2, row tile; pinned with monkeypatch on
+    the plan's tables) against its plain twin at 1e-4 x max(1, max|ref|):
+    masks from lengths, with holes (an all-off and an all-on row) and all
+    off; T = 1, 7 and 300; groups of 30, 8, 13 and 9 rows, which leave short
+    row tiles; dhs, dhn and dcn None in turn; the same bits twice. Its
+    wrapper counts the launches; the cluster sweep never launches."""
+    monkeypatch.setattr(lstm_cuda, "REC_MID_F32_CLUSTER", {H: cluster})
+    monkeypatch.setattr(lstm_cuda, "REC_MID_F32_FROM_L2", () if resident else (H,))
+    monkeypatch.setattr(lstm_cuda, "REC_MID_F32_ROWS", (rows,))
+    cd = torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, 2, B, H, G, cd, cuda_device,
+                                                  "holes" if mask == "off" else mask,
+                                                  seed=H + T + G)
+    if mask == "off":
+        valid = torch.zeros_like(valid)
+    assert lstm_cuda.recurrence_sweep_kernel(H, cd) == "lstm_recurrence_bwd_mid_f32"
+    wrappers = (lstm_cuda.lstm_recurrence_bwd_mid_f32, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    hs, cs = recurrence_fwd(xg, valid, w, G, cd)[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    got = lstm_cuda.lstm_recurrence_bwd(*args)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args), got)
+    _close([got], [recurrence_sweep(*args)], 1e-4)
+    for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
+                 (xg, valid, w, hs, cs, dhs, None, dcn, G, cd)):
+        _close([lstm_cuda.lstm_recurrence_bwd(*part)], [recurrence_sweep(*part)], 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,mask", [(128, "lengths"), (128, "holes"), (256, "lengths")])
+def test_recurrence_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, mask):
+    """The one-layer f32 model at embedding 128 on the recurrence backend at
+    its run shape (400 rows in 5 groups, D = 2, T = 1500) and the same rows
+    at 256, on the dispatch's plan (4-block clusters at 128, 8-block ones at
+    256, the fragments resident): against the plain twin at 1e-4 x max(1,
+    max|ref|), the same bits twice; the cluster sweep asked for by name
+    agrees too."""
+    cd, G, B, T = torch.float32, 5, 400, 1500
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, 2, B, H, G, cd, cuda_device, mask, seed=H)
+    hs, cs = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    want = recurrence_sweep(*args)
+    wf = lstm_cuda.recurrence_f32_weights(w)
+    got = lstm_cuda.lstm_recurrence_bwd(*args, wf=wf)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args), got)
+    _close([got], [want], 1e-4)
+    before = lstm_cuda.lstm_recurrence_bwd.launches
+    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_bwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_recurrence_mid_f32_refuses_on_card(cuda_device, monkeypatch):
+    """The op's f32 sweep at 96-288 asked for by name refuses bf16, the
+    widths it does not take and a plan with no instance, before any launch;
+    a batch of no row launches nothing; a wrong fragment copy is refused."""
+    cd = torch.float32
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(4, 2, 10, 128, 2, cd, cuda_device, "holes")
+    hs, cs = recurrence_fwd(xg, valid, w, 2, cd)[:2]
+    wrapper = lstm_cuda.lstm_recurrence_bwd_mid_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_f32 takes compute dtype"):
+        wrapper(xg, valid, w.to(torch.bfloat16), hs, cs, dhs, dhn, dcn, 2, torch.bfloat16)
+    small = recurrence_case(4, 2, 10, 64, 2, cd, cuda_device, "holes")
+    hsm, csm = recurrence_fwd(small[0], small[1], small[2], 2, cd)[:2]
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_f32 takes compute dtype"):
+        wrapper(small[0], small[1], small[2], hsm, csm, None, None, None, 2, cd)
+    with pytest.raises(ValueError, match="wf must be a contiguous"):
+        wrapper(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd, wf=torch.zeros(3, device=cuda_device))
+    cut = lambda t: t[:, :, :0].contiguous()  # noqa: E731
+    assert wrapper(cut(xg), cut(valid), w, cut(hs), cut(cs), None, None, None, 2, cd).shape == \
+        (4, 2, 0, 512)
+    monkeypatch.setattr(lstm_cuda, "REC_MID_F32_CLUSTER", {128: 2})
+    with pytest.raises(ValueError, match="no instance"):
+        wrapper(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("G,B", [(1, 30), (1, 13), (3, 27), (5, 60), (2, 22), (5, 400)])
+def test_fwd_wide_f32_resident_matches_plain_on_card(cuda_device, T, G, B):
+    """The one-block f32 wide forward at H = 96 (three tf32 passes, W_hh as
+    f32 mma fragments in registers) against its plain twin at 1e-4 x max(1,
+    max|ref|), both variants: groups of 30, 13, 9, 12, 11 and 80 rows
+    (short tiles inside each group), groups at lengths 0, 1 and T, rows of
+    length 0, 1 and T and rows 8-15 short of T (a tile that stops at its
+    longest row). The dispatch names it and its wrappers count the
+    launches; both variants give the same hs bits; ``bilstm_fwd_wide.cu``
+    asked for by name still runs f32 at 96 and agrees too."""
+    cd, H = torch.float32, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
+                                                           seed=T + B + 97)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=T // 3)
+    lengths = _main_path_lengths(lengths, G, T)
+    xg = input_gates(parts, w_ih, bias, cd)
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_f32_resident"
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32_resident,
+                lstm_cuda.bilstm_fwd_wide_train_f32_resident, lstm_cuda.bilstm_fwd_wide,
+                lstm_cuda.bilstm_fwd_wide_train)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
+    ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
+    _close(got, want, 1e-4)
+    _close(ev, want[:4], 1e-4)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    assert all(torch.equal(a, b) for a, b in zip(
+        lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd), got))
+    _close(lstm_cuda.bilstm_fwd_wide_f32_resident(xg, lengths, w_hh, cd), want[:4], 1e-4)
+    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
+           want, 1e-4)
+    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"), want[:4],
+           1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 5])
+def test_fwd_wide_f32_resident_at_the_main_path_shape_on_card(cuda_device, G):
+    """The stacked layer of the f32 model at embedding 80 at its run shape:
+    H = 96, input parts 80 + 80 (the gates from the f32 tensor-core gates
+    kernel), 400 rows in one group (and in 5), T = 1500, ragged lengths:
+    both variants against the plain twin at 1e-4 x max(1, max|ref|), the
+    same bits twice, and the same hs bits in both variants."""
+    cd, T, B, H = torch.float32, 1500, 400, 96
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [80, 80], H, G, cd, cuda_device,
+                                                           seed=16 + G)
+    xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
+    del parts
+    want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
+    got = lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd)
+    again = lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    ev = lstm_cuda.bilstm_fwd_wide_f32_resident(xg, lengths, w_hh, cd)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    _close(got, want, 1e-4)
+    _close(ev, want[:4], 1e-4)
+
+
+@pytest.mark.cuda
+def test_fwd_wide_f32_resident_edges_on_card(cuda_device):
+    """An empty batch launches nothing and T = 0 gives empty streams with a
+    zero final state; bf16 operands, H = 128 and a ``w_hh`` that is not
+    contiguous raise in the one-block f32 wrappers (nothing falls back)."""
+    cd = torch.float32
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [96], 96, 2, cd, cuda_device)
+    xg = input_gates(parts, w_ih, bias, cd)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32_resident,
+                lstm_cuda.bilstm_fwd_wide_train_f32_resident)
+    before = [f.launches for f in wrappers]
+    for fwd in wrappers:
+        out = fwd(xg[:, :, :0].contiguous(), lengths[:0], w_hh[:, :1].contiguous(), cd)
+        assert out[0].shape == (4, 0, 96) and out[2].shape == (2, 0, 96)
+    assert [f.launches for f in wrappers] == before
+    for fwd in wrappers:
+        out = fwd(xg[:, :0].contiguous(), lengths, w_hh, cd)
+        assert out[0].shape == (0, 10, 96) and not out[2].any() and not out[3].any()
+        bf16 = torch.bfloat16
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32_resident kernel takes float32"):
+            fwd(xg, lengths, w_hh.to(bf16), bf16)
+        wide = layer_case(4, 10, [128], 128, 2, cd, cuda_device)
+        xw = input_gates(*wide[:1], wide[2], wide[4], cd)
+        with pytest.raises(ValueError, match="bilstm_fwd_wide_f32_resident kernel takes float32"):
+            fwd(xw, wide[1], wide[3], cd)
+        with pytest.raises(ValueError, match="w_hh must be a contiguous"):
+            fwd(xg, lengths, w_hh.transpose(-1, -2).contiguous().transpose(-1, -2), cd)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dtype):
+    """The two-layer model at embedding 128 on the recurrence backend: both
+    layers run the op at 128; in f32 its sweep is the tensor-core
+    ``lstm_recurrence_bwd_mid_f32.cu`` (never the cluster sweep), in bf16 the
+    cluster sweep (never the f32 one); its forward the cluster forward in
+    both. Its gradients equal the CPU plain path's (1e-4 x max(1,
+    max|grad|) in f32, 2^-7 in bf16)."""
+    from intrepppid_tpu_torch.ops import lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(lstm, "DEFAULT_BACKEND", "recurrence")
+    f32 = dtype == torch.float32
+    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd_mid_f32,
+                lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=dtype, embedding_size=128)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2 * f32, 2 * (not f32)]
+    want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=128)
+    tol = 1e-4 if f32 else 2.0 ** -7
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
+            1.0, float(ref.abs().max())), name

@@ -121,6 +121,38 @@ def test_fused_recurrence_matches_jax_past_256(dtype, H):
                                atol=gt * max(1.0, float(np.abs(jdw).max())), err_msg="dw")
 
 
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("H", [128, 224])
+def test_fused_recurrence_matches_jax_f32_mid_widths(H, mask):
+    """The op in f32 at H = 128 and 224 (on the card the tensor-core sweep
+    of 96-288, lstm_recurrence_bwd_mid_f32.cu, with 4- and 8-block
+    clusters; on the CPU its plain twin) with 5 weight groups against
+    JAX's op in interpret mode: values and gradients at the f32 tolerances
+    above, masks from lengths and with holes."""
+    T, D, B, G = 3, 2, 10, 5
+    jdt, tdt = DTYPES["float32"]
+    xg, valid, w, coef = op_case(H + len(mask), T, D, B, H, G, mask)
+
+    def jloss(xg, w):
+        out = jax_recurrence(xg, jnp.asarray(valid), w, G, jdt)
+        return sum(jnp.sum(o * c) for o, c in zip(out, coef)), out
+
+    (_, jout), (jdxg, jdw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(xg), jnp.asarray(w))
+    txg = torch.from_numpy(xg).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    out = fused_lstm_recurrence(txg, torch.from_numpy(valid), tw, G, tdt)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, coef)).backward()
+    vt, gt = VALUE_TOL["float32"], GRAD_TOL["float32"]
+    for name, got, want in zip(("hs", "hn", "cn"), out, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=vt, err_msg=name)
+    np.testing.assert_allclose(txg.grad.numpy(), np.asarray(jdxg), atol=gt, err_msg="dxg")
+    jdw = np.asarray(jdw)
+    np.testing.assert_allclose(tw.grad.numpy(), jdw,
+                               atol=gt * max(1.0, float(np.abs(jdw).max())), err_msg="dw")
+    assert torch.all(txg.grad[torch.from_numpy(~valid)] == 0)
+
+
 def test_fused_recurrence_one_direction_and_three():
     """The twins take any D >= 1 (the JAX op too): D = 1 and D = 3."""
     for D in (1, 3):

@@ -405,8 +405,9 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
 # made, {(old, new): the padded widths Hp where the wide route changed}.
 # First the f32 lite sweep at 160-224 with the one-block bf16 wide forward
 # at 96, then the bf16 lite sweep with the f32 wide forward at 160-224, then
-# the bf16 wide forward at 160-224. Each is set back on the lite-sweep
-# dispatch of its time (``_with_cuda_core_sweep``).
+# the bf16 wide forward at 160-224, then the one-block f32 wide forward at
+# 96. Each is set back on the lite-sweep dispatch of its time
+# (``_with_cuda_core_sweep``).
 WIDE_SLICES = {
     "f32_lite_160_224_bf16_fwd_96": (
         {"LITE_F32_WIDTHS": (128, 256, 288), "FWD_WIDE_MMA_RESIDENT_WIDTHS": ()},
@@ -420,6 +421,10 @@ WIDE_SLICES = {
         {"FWD_WIDE_MMA_WIDTHS": (128, 256, 288)},
         {torch.float32: {},
          torch.bfloat16: {("bilstm_fwd_wide", "bilstm_fwd_wide_mma"): {160, 192, 224}}}),
+    "f32_fwd_96": (
+        {"FWD_WIDE_F32_RESIDENT_WIDTHS": ()},
+        {torch.float32: {("bilstm_fwd_wide", "bilstm_fwd_wide_f32_resident"): {96}},
+         torch.bfloat16: {}}),
 }
 
 
@@ -435,9 +440,10 @@ def test_each_wide_kernel_slice_changes_no_other_plan(kernel_slice, dtype, monke
     ``bilstm_fwd_wide_f32`` and bf16 ``bilstm_bwd_lite`` →
     ``bilstm_bwd_lite_mma`` at Hp = 160, 192 and 224 (layer 0 of 145-224
     units and the stacked layers run there), or bf16 ``bilstm_fwd_wide`` →
-    ``bilstm_fwd_wide_mma`` at 160, 192 and 224. Today no wide layer takes
-    the CUDA-core lite sweep (its source is gone), and f32 keeps
-    ``bilstm_fwd_wide.cu`` at 96 only, bf16 nowhere."""
+    ``bilstm_fwd_wide_mma`` at 160, 192 and 224, or f32 ``bilstm_fwd_wide``
+    → ``bilstm_fwd_wide_f32_resident`` at Hp = 96. Today no wide layer takes
+    the CUDA-core lite sweep (its source is gone) or the CUDA-core wide
+    forward, in either dtype."""
     constants, changes = WIDE_SLICES[kernel_slice]
     try:
         with monkeypatch.context() as m:
@@ -464,8 +470,7 @@ def test_each_wide_kernel_slice_changes_no_other_plan(kernel_slice, dtype, monke
     wide = [p for p in after.values() if p[0] == "wide"]
     assert {96, 160, 192, 224} <= {p[1] for p in wide}
     assert not any(p[3][2] == "bilstm_bwd_lite" for p in wide)
-    assert {p[1] for p in wide if p[3][1] == "bilstm_fwd_wide"} == (
-        {96} if dtype == torch.float32 else set())
+    assert not any(p[3][1] == "bilstm_fwd_wide" for p in wide)
     if dtype == torch.float32:
         assert after["train layer 0", 160][3][1:3] == ("bilstm_fwd_wide_f32",
                                                       "bilstm_bwd_lite_f32")
