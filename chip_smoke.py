@@ -76,8 +76,8 @@ exits non-zero with no result):
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
    stacked layer padded to H = 96 on the wide route (the tensor-core
    gates, the one-block wide forward, ``bilstm_fwd_wide_f32_resident`` in
-   f32 and ``bilstm_fwd_wide_mma_resident`` in bf16, never
-   ``bilstm_fwd_wide.cu``, and the one-block lite sweep,
+   f32 and ``bilstm_fwd_wide_mma_resident`` in bf16, and the one-block
+   lite sweep,
    ``bilstm_bwd_lite_f32_resident`` in f32 and
    ``bilstm_bwd_lite_mma_resident`` in bf16, never ``bilstm_bwd_lite.cu``);
    then one step's gradients (and at embedding 80 an eval step)
@@ -120,7 +120,7 @@ exits non-zero with no result):
    wide forward (both variants: in bf16 the one-block
    ``bilstm_fwd_wide_mma_resident``, in f32 the one-block
    ``bilstm_fwd_wide_f32_resident`` in three tf32 passes, also at 5 weight
-   groups and in turns with the CUDA-core ``bilstm_fwd_wide.cu`` by name)
+   groups)
    and lite sweep (the one-block ones) at the stacked layer at embedding 80
    (run at H = 96) in bf16 and in f32, against their twins, timed beside
    their bounds and cuDNN; at 288 the
@@ -143,10 +143,10 @@ exits non-zero with no result):
    stacked layer is ``bilstm_bwd.cu``'s, (bf16) 56, whose layers are
    ``bilstm_fwd.cu``'s, and 160, whose layers run the f32 tensor-core
    forward and lite sweep in f32, the bf16 tensor-core forward, lite
-   sweep and split wgrad in bf16 (never ``bilstm_fwd_wide.cu``), and of
-   the recurrence backend at embedding 80
-   (run at 96), each with the kernels it must launch (and, where given,
-   must not);
+   sweep and split wgrad in bf16, and of the recurrence backend at
+   embedding 80 (run at 96: in bf16 the tensor-core
+   ``lstm_recurrence_{fwd,bwd}_mid_mma``, never the cluster kernels), each
+   with the kernels it must launch (and, where given, must not);
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
    kernel against their plain versions at the scaled configuration's
@@ -157,8 +157,7 @@ exits non-zero with no result):
    wide forward ``bilstm_fwd_wide(_train)_mma``, the lite sweep
    ``bilstm_bwd_lite_mma`` and wgrad ``bilstm_wgrad_mma``, in f32 (three
    tf32 passes) ``bilstm_gates_f32``, ``bilstm_fwd_wide(_train)_f32``,
-   ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``, and the CUDA-core
-   forward, asked for by name, is held too in bf16; the
+   ``bilstm_bwd_lite_f32`` and ``bilstm_wgrad_f32``; the
    input gates computed twice must agree bit for bit (the backward
    recomputes them), and so must the tensor-core forwards' hs in their two
    variants; ragged cases of the tensor-core kernels (27 rows in 3 groups
@@ -167,8 +166,8 @@ exits non-zero with no result):
    in both dtypes); then each timed with CUDA events at full lengths beside
    its plain version and a PyTorch yardstick in the same dtype (cuBLAS
    ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; wgrad
-   new, old, old, new in both dtypes, the bf16 forward (both variants)
-   too, and in bf16 the forward and the sweep at each of their row tiles;
+   new, old, old, new in both dtypes, and in bf16 the forward and the
+   sweep at each of their row tiles;
    and the bf16 wide route's split weight gradient (``dW_ih`` on cuBLAS,
    ``dW_hh`` on ``bilstm_wgrad_mma`` with no input part) against its twin
    at the train shape on the wide layers at 96, 160, 256 and 288, timed in
@@ -203,20 +202,25 @@ exits non-zero with no result):
    and 5, the bf16 forward at D = 1-3); the op at H = 128, 5 groups, the
    shapes of its main paths (``op_h128``: in f32 the tensor-core sweep
    ``lstm_recurrence_bwd_mid_f32``, three tf32 passes, both masks, the same
-   bits twice, in turns with the cluster sweep by name; in bf16 the cluster
-   forward and sweep); the f32 sweep at each width 96-288 (``mid_f32``:
-   held against its twin at T = 300, then each of its instances, by blocks
-   a cluster, fragments resident or read from L2, and row tile, timed in
-   turns with the dispatch at T = 1500, with registers, spills and the
-   clusters the card holds). At H = 256 the f32 sweep is
-   ``lstm_recurrence_bwd_mid_f32`` too, with the cluster sweep by name
-   beside it. Each is timed
+   bits twice, in turns with the cluster sweep by name; in bf16 the
+   tensor-core sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_mma``,
+   each in turns with its cluster kernel by name); the f32 sweep at each
+   width 96-288 (``mid_f32``: held against its twin at T = 300, then each
+   of its instances, by blocks a cluster, fragments resident or read from
+   L2, and row tile, timed in turns with the dispatch at T = 1500, with
+   registers, spills and the clusters the card holds); the bf16 sweep and
+   forward at each width 96-288 (``mid_mma``: each instance, by blocks a
+   cluster and row tile, held against its twin at T = 300 with masks from
+   lengths and with holes and computed twice (the same bits), then timed
+   in turns with the dispatch at T = 1500). At H = 256 the sweeps are
+   ``lstm_recurrence_bwd_mid_f32`` and ``lstm_recurrence_bwd_mid_mma``
+   too, with the cluster sweep by name beside them. Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and bf16,
    which also does the input projection; for the weight
    gradient one batched cuBLAS product on the rounded operands and, in
    bf16, the rounding, layout and product together); then the op past 256
-   units (H = 288 on the cluster kernels' 288-thread instance, 512 and
+   units (H = 288, in f32 on the cluster forward's 288-thread instance, 512 and
    1024 on the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``
    in bf16 and ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32) against its
    twins, the bf16 tensor-core kernels alone at H = 320, 512 and 1024 with
@@ -235,7 +239,8 @@ exits non-zero with no result):
    and wgrad must be the cluster forward, ``lstm_recurrence_bwd_f32`` and
    the CUDA-core wgrad alone, and 2 steps of a one-layer model at
    embedding 128, in f32 (its sweep ``lstm_recurrence_bwd_mid_f32``, never
-   the cluster sweep) and in bf16 (the cluster forward and sweep); a profiled
+   the cluster sweep) and in bf16 (its forward and sweep
+   ``lstm_recurrence_{fwd,bwd}_mid_mma``, never the cluster kernels); a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
@@ -251,7 +256,7 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-nine kernels, each with launches > 0 on
+11. the ``kernels`` line (forty kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
@@ -259,10 +264,10 @@ exits non-zero with no result):
     tensor-core forward at H = 64 as an entry of its own;
     ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
     ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
-    72 beside it); the one-block f32 wide forward's main path f32 at 96
-    (``bilstm_fwd_wide.cu``, on no path since, by name beside it); the op's
-    f32 sweep at 96-288 from the f32 one-layer model at embedding 128, and
-    the cluster sweep from the bf16 one (its f32 times by name beside it); the
+    72 beside it); the one-block f32 wide forward's main path f32 at 96; the
+    op's f32 sweep at 96-288 from the f32 one-layer model at embedding 128,
+    and its bf16 sweep and forward from the bf16 one (the cluster sweep,
+    on no path since, by name beside them in both dtypes); the
     bf16 tensor-core forward at 160-224 as ``hN_*`` fields of its entries;
     the split bf16 weight gradient (``dW_hh`` on ``bilstm_wgrad_mma``,
     ``dW_ih`` on cuBLAS) as ``split_hN_*`` fields of ``bilstm_wgrad_mma``'s
@@ -332,6 +337,8 @@ def phase_build() -> dict:
         LITE_MMA_ROWS,
         LITE_MMA_UNEVEN_ROWS,
         LITE_MMA_WIDTHS,
+        REC_MID_MMA_INSTANCES,
+        REC_MID_MMA_ROWS,
         REC_WGRAD_MMA_SMEM,
         REC_WIDE_F32_FWD_ROWS,
         REC_WIDE_F32_ROWS,
@@ -351,6 +358,7 @@ def phase_build() -> dict:
         lite_f32_resident_plan,
         lite_mma_resident_plan,
         recurrence_f32_smem,
+        recurrence_mid_mma_smem,
         recurrence_mma_smem,
         recurrence_wide_f32_smem,
         recurrence_wide_mma_smem,
@@ -426,6 +434,13 @@ def phase_build() -> dict:
     for H in FWD_WIDE_F32_WIDTHS:
         for R in fwd_wide_f32_rows(H):
             smem[f"fwd_wide_f32 H={H} rows={R}"] = wide_smem("fwd_f32", H, R)
+    # the op's bf16 tensor-core sweep and forward at 96-288, each instance
+    for kind in ("bwd", "fwd"):
+        for cluster, mid_widths in REC_MID_MMA_INSTANCES.items():
+            for H in mid_widths:
+                for rows in REC_MID_MMA_ROWS:
+                    smem[f"recurrence_{kind}_mid_mma H={H} cluster={cluster} rows={rows}"] = \
+                        recurrence_mid_mma_smem(kind, H, rows, cluster)
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -1465,8 +1480,7 @@ def train_counters():
             "bilstm_layer_fwd_f32": L.bilstm_layer_fwd_f32,
             "bilstm_layer_fwd_train_f32": L.bilstm_layer_fwd_train_f32,
             "bilstm_gates_mma": L.bilstm_gates_mma,
-            "bilstm_fwd_wide_train": L.bilstm_fwd_wide_train,
-            "bilstm_fwd_wide": L.bilstm_fwd_wide, "bilstm_wgrad_ih": L.bilstm_wgrad_ih,
+            "bilstm_wgrad_ih": L.bilstm_wgrad_ih,
             "bilstm_bwd_lite_mma": L.bilstm_bwd_lite_mma,
             "bilstm_fwd_wide_train_mma": L.bilstm_fwd_wide_train_mma,
             "bilstm_fwd_wide_mma": L.bilstm_fwd_wide_mma,
@@ -1492,7 +1506,9 @@ def train_counters():
             "bilstm_fwd_wide_mma_resident": L.bilstm_fwd_wide_mma_resident,
             "bilstm_fwd_wide_train_f32_resident": L.bilstm_fwd_wide_train_f32_resident,
             "bilstm_fwd_wide_f32_resident": L.bilstm_fwd_wide_f32_resident,
-            "lstm_recurrence_bwd_mid_f32": L.lstm_recurrence_bwd_mid_f32}
+            "lstm_recurrence_bwd_mid_f32": L.lstm_recurrence_bwd_mid_f32,
+            "lstm_recurrence_bwd_mid_mma": L.lstm_recurrence_bwd_mid_mma,
+            "lstm_recurrence_fwd_mid_mma": L.lstm_recurrence_fwd_mid_mma}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1577,14 +1593,12 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                         "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
                         "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32",
                         "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_train_mma_resident",
-                        "bilstm_fwd_wide_mma_resident", "bilstm_fwd_wide_train",
-                        "bilstm_fwd_wide"),
+                        "bilstm_fwd_wide_mma_resident"),
         torch.bfloat16: ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32",
                          "bilstm_bwd_f32_onestage", "bilstm_bwd", "bilstm_gates_f32",
                          "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_train",
                          "bilstm_layer_fwd", "bilstm_bwd_lite_mma",
-                         "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train",
-                         "bilstm_fwd_wide", "bilstm_fwd_wide_train_f32_resident",
+                         "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train_f32_resident",
                          "bilstm_fwd_wide_f32_resident")}
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
         dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
@@ -1643,8 +1657,7 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
                         "lstm_recurrence_fwd_kernel", "lstm_recurrence_fwd_mma_kernel",
-                        "bilstm_fwd_wide_kernel",
-                        "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
+                        "lstm_recurrence_fwd_mid_mma_kernel", "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
                         "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel",
@@ -1659,7 +1672,8 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                           "lstm_recurrence_bwd_wide_f32_kernel", "bilstm_bwd_lite_f32_kernel",
                           "bilstm_bwd_lite_f32_resident_kernel",
                           "bilstm_bwd_lite_mma_resident_kernel",
-                          "lstm_recurrence_bwd_mid_f32_kernel"),
+                          "lstm_recurrence_bwd_mid_f32_kernel",
+                          "lstm_recurrence_bwd_mid_mma_kernel"),
                 "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
                           "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
                           "lstm_recurrence_wgrad_mma_kernel"),
@@ -1757,29 +1771,30 @@ PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 1
 # the wide route's kernels at 128-288, by dtype (the tensor-core ones; in
 # f32 three tf32 passes a product; in bf16 dW_ih on cuBLAS beside
 # bilstm_wgrad_mma's dW_hh); the CUDA-core forward and the whole-kernel
-# wgrad dispatch no wide layer at these widths may launch
+# wgrad no wide layer at these widths may launch
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma", "bilstm_wgrad_ih")
 WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
             "bilstm_bwd_lite_f32", "bilstm_wgrad_f32")
-WIDE_CUDA_CORE = ("bilstm_fwd_wide_train", "bilstm_fwd_wide", "bilstm_wgrad")
+WIDE_CUDA_CORE = ("bilstm_wgrad",)
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch (at 72 in
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
 # and sweep's <72, 72> instances, the stacked layer (run at 96) that of the
-# one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu,
-# bilstm_fwd.cu and bilstm_fwd_wide.cu must not launch;
+# one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu and
+# bilstm_fwd.cu must not launch;
 # at 16 in bf16 the stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's:
 # K = 48, which the tensor-core sweep does not take; at 56 in bf16 both
 # layers, E = 56 and 56 + 56, are bilstm_fwd.cu's, which the tensor-core
 # forward has no instance for; at 160 both layers run on the wide route at
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
-# (bilstm_fwd_wide.cu and the dW_ih products must not launch), in bf16 the
-# bf16 tensor-core forward's and lite sweep's and the split wgrad's
-# (bilstm_fwd_wide.cu must not launch); on the recurrence backend at 80 both
-# layers run the op at 96: in f32 its sweep is the tensor-core
-# lstm_recurrence_bwd_mid_f32.cu and the cluster sweep must not launch, in
-# bf16 the cluster sweep) and, where given, must not
+# (the dW_ih products must not launch), in bf16 the bf16 tensor-core
+# forward's and lite sweep's and the split wgrad's; on the recurrence
+# backend at 80 both layers run the op at 96: in f32 its sweep is the
+# tensor-core lstm_recurrence_bwd_mid_f32.cu and the cluster sweep must not
+# launch, in bf16 its forward and sweep are the tensor-core
+# lstm_recurrence_{fwd,bwd}_mid_mma.cu and neither cluster kernel may
+# launch) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1797,25 +1812,25 @@ WIDTH_STEPS = (
                                    "bilstm_bwd_mma", "bilstm_wgrad_mma",
                                    "bilstm_fwd_wide_train_mma_resident",
                                    "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident"),
-     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd",
-      "bilstm_fwd_wide_train", "bilstm_fwd_wide")),
+     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd")),
     ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
                                    "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma")),
     ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
                                    "bilstm_wgrad_mma"),
      ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd")),
-    ("layer", 160, torch.float32, WIDE_F32,
-     ("bilstm_wgrad_ih", "bilstm_fwd_wide", "bilstm_fwd_wide_train")),
+    ("layer", 160, torch.float32, WIDE_F32, ("bilstm_wgrad_ih",)),
     ("layer", 160, torch.bfloat16, WIDE_BF16,
-     ("bilstm_fwd_wide", "bilstm_fwd_wide_train", "bilstm_bwd_lite_f32", "bilstm_wgrad_f32",
-      "bilstm_fwd_wide_mma_resident")),
+     ("bilstm_bwd_lite_f32", "bilstm_wgrad_f32", "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, WIDE_BF16),
     ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
-                                       "lstm_recurrence_wgrad"), ("lstm_recurrence_bwd",)),
-    ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                                       "lstm_recurrence_wgrad"),
+     ("lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma")),
+    ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd_mid_mma",
+                                        "lstm_recurrence_bwd_mid_mma",
                                         "lstm_recurrence_wgrad_mma"),
-     ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mid_f32")),
+     ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
+      "lstm_recurrence_bwd_mid_f32")),
 )
 
 
@@ -1910,8 +1925,7 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
     layer of the two-layer model at embedding 80 (in bf16 the one-block
     ``bilstm_fwd_wide_mma_resident.cu`` and ``bilstm_bwd_lite_mma_resident.cu``,
     in f32 the one-block ``bilstm_fwd_wide_f32_resident.cu``, both variants
-    also in turns with ``bilstm_fwd_wide.cu`` by name (``cuda_core_ms``) and
-    held against the twin at 5 weight groups, T = 300 (``g5_*``), and
+    also held against the twin at 5 weight groups, T = 300 (``g5_*``), and
     ``bilstm_bwd_lite_f32_resident.cu``);
     with E = H = 160-224 layer 0 at those embeddings (in f32
     ``bilstm_fwd_wide_f32.cu``, also at each of its row tiles in turns with
@@ -1980,13 +1994,6 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
                         out["fwd_mma"][f"rows_{R}_ms"] = time_ms(calls["fwd"], 3)
                 finally:
                     L.FWD_WIDE_MMA_UNEVEN_ROWS = keep
-            if one_block_f32:
-                # new, old, old, new: the CUDA-core forward by name on the same operands
-                for k in ("fwd", "fwd_eval"):
-                    old = getattr(L, "bilstm_fwd_wide_train" if k == "fwd" else "bilstm_fwd_wide")
-                    a, b, c = in_turns(calls[k], lambda: old(xg, lengths, w_hh, cd,
-                                                             kernel="bilstm_fwd_wide"), 3)
-                    out[k]["turns_ms"], out[k]["cuda_core_ms"] = (a, b), c
             if fwd_f32:
                 # the train variant at each row tile, in turns with the dispatch
                 for R in L.fwd_wide_f32_rows(Hp):
@@ -2016,14 +2023,12 @@ def wide_cuda_core_kernels(dev, E_parts=(272,), H=272, G=G_TRAIN, ny=2, Hp_want=
             train, ev = calls["fwd"](), calls["fwd_eval"]()
             res["fwd"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, train, want)}
             res["fwd_eval"] = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(names, ev, want)}
-            if fwd_want != "bilstm_fwd_wide":
-                if not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
-                    raise AssertionError(f"{fwd_want}'s two variants differ")
-                for k, first in (("fwd", train), ("fwd_eval", ev)):
-                    res[k]["twice"] = (0.0, all(torch.equal(a, b)
-                                                for a, b in zip(calls[k](), first)))
-                    out[k + sfx]["scaled_err"] = max(scaled_err(a, b)
-                                                     for a, b in zip(first, want))
+            if not (torch.equal(train[0], ev[0]) and torch.equal(train[1], ev[1])):
+                raise AssertionError(f"{fwd_want}'s two variants differ")
+            for k, first in (("fwd", train), ("fwd_eval", ev)):
+                res[k]["twice"] = (0.0, all(torch.equal(a, b)
+                                            for a, b in zip(calls[k](), first)))
+                out[k + sfx]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(first, want))
             if fwd_f32:
                 for R in L.fwd_wide_f32_rows(Hp):
                     res["fwd"].update({f"rows{R}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
@@ -2477,14 +2482,13 @@ def phase_widths(dev) -> dict:
     # the bf16 model at embedding 72 at the train shape: layer 0 on the
     # tensor-core forward and sweep (bilstm_fwd.cu and bilstm_bwd.cu never),
     # the stacked layer wide at 96 on the one-block bf16 wide forward and
-    # lite sweep (bilstm_fwd_wide.cu never)
+    # lite sweep
     models["embedding_72_bfloat16"] = f32_steps(
         dev, batches, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                        "bilstm_wgrad_mma", "bilstm_gates_mma",
                        "bilstm_fwd_wide_train_mma_resident", "bilstm_fwd_wide_mma_resident",
                        "bilstm_bwd_lite_mma_resident"),
-        ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad",
-         "bilstm_fwd_wide_train", "bilstm_fwd_wide"),
+        ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad"),
         eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
@@ -2613,13 +2617,6 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
         res["eval_vs_train_hs"] = (
             max(float((a.float() - b.float()).abs().max()) for a, b in zip(ev[:2], got[:2])),
             all(torch.equal(a, b) for a, b in zip(ev[:2], got[:2])))
-    if L.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma":
-        # the CUDA-core kernel by name (bf16 up to 256 units)
-        del got, ev
-        got = L.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
-        res.update({f"cuda_core_train_{n}": rel_err(a, b, tol) for n, a, b in zip(names, got, want)})
-        ev = L.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
-        res.update({f"cuda_core_eval_{n}": rel_err(a, b, tol) for n, a, b in zip(names, ev, want)})
     del got, ev
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
@@ -3063,23 +3060,15 @@ def phase_wide_kernel(dev) -> dict:
             lite_args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
-            # new, old, old, new: a tensor-core kernel and the CUDA-core one
-            # by name, on the same operands: wgrad, and in bf16 the forward;
-            # the gates and the lite sweep (whose CUDA-core kernels are gone)
-            # and, in f32, the forward (whose CUDA-core kernel no longer
-            # takes 256 units in f32) are timed alone
+            # new, old, old, new: the tensor-core wgrad and the CUDA-core one
+            # by name, on the same operands; the gates, the forward and the
+            # lite sweep (whose CUDA-core kernels are gone) are timed alone
             turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
                       lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
             alone = [("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype)),
-                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args))]
-            fwd = [("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args),
-                    lambda: L.bilstm_fwd_wide_train(*fwd_args, kernel="bilstm_fwd_wide")),
-                   ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args),
-                    lambda: L.bilstm_fwd_wide(*fwd_args, kernel="bilstm_fwd_wide"))]
-            if bf16:
-                turns += fwd
-            else:
-                alone += [(key, new) for key, new, _ in fwd]
+                     ("lite", lambda: L.bilstm_bwd_lite(*lite_args)),
+                     ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args)),
+                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args))]
             for key, new in alone:
                 add(f"{key}_ms", time_ms(new, 3))
             for key, new, old in turns:
@@ -3240,9 +3229,7 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     old = [n for n in ("bilstm_layer_fwd_train", "bilstm_layer_fwd_train_mma", "bilstm_bwd",
                        "bilstm_bwd_mma", "bilstm_layer_fwd", "bilstm_layer_fwd_mma",
                        "bilstm_wgrad", "bilstm_wgrad_f32", "bilstm_layer_fwd_f32",
-                       "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32",
-                       "bilstm_fwd_wide_train", "bilstm_fwd_wide",
-                       "bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
+                       "bilstm_layer_fwd_train_f32", "bilstm_bwd_f32", "bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32")
            if launches[n] != 0]
     if missing or old:
@@ -3436,9 +3423,11 @@ def op_sweep_h128(dev, H=128) -> dict:
     (``cluster_ms``; its own bound at the CUDA cores' f32 rate beside it)
     and beside its bound at 495/3 TFLOP/s and cuDNN's one-layer backward for
     the input, TF32 off; the cluster forward, the f32 forward there, beside
-    its bound and cuDNN's training forward (``fwd_*``). In bf16 the cluster
-    forward and sweep, the dispatch there, held against their twins (3e-2)
-    and timed beside their bytes bounds and cuDNN bf16."""
+    its bound and cuDNN's training forward (``fwd_*``). In bf16 the
+    tensor-core sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_mma.cu``,
+    the dispatch there, held against their twins (3e-2) and timed in turns
+    with the cluster kernels by name (new, old, old, new: ``cluster_ms``,
+    ``fwd_cluster_ms``), beside their bytes bounds and cuDNN bf16."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
@@ -3447,9 +3436,9 @@ def op_sweep_h128(dev, H=128) -> dict:
         dt = str(cd).replace("torch.", "")
         size = torch.empty((), dtype=cd).element_size()
         sweep, fwd = L.recurrence_sweep_kernel(H, cd), L.recurrence_fwd_kernel(H, cd)
-        want_sweep = "lstm_recurrence_bwd_mid_f32" if cd == torch.float32 \
-            else "lstm_recurrence_bwd"
-        if (sweep, fwd) != (want_sweep, "lstm_recurrence_fwd"):
+        want = ("lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd") if cd == torch.float32 \
+            else ("lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_mid_mma")
+        if (sweep, fwd) != want:
             raise AssertionError(f"H={H} in {dt} runs {sweep} and {fwd}")
         o = {"kernel": sweep, "fwd_kernel": fwd, "B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "H": H,
              "G": G, "dtype": dt, "tol": f"{TOL[cd]} x max(1, max|ref|)", "max_abs_err": {}}
@@ -3475,22 +3464,24 @@ def op_sweep_h128(dev, H=128) -> dict:
             new = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
             if mask == "lengths":
                 o["plain_ms"], o["fwd_plain_ms"] = plain_ms, fwd_plain_ms
+                # new, old, old, new: both sweeps in one run, on one card
+                a, b, c = in_turns(new, lambda: L.lstm_recurrence_bwd(
+                    *args, kernel="lstm_recurrence_bwd"), 3)
+                o["ms"], o["ms_again"], o["cluster_ms"] = a, b, c
+                new_fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd)  # noqa: E731
                 if cd == torch.float32:
-                    # new, old, old, new: both sweeps in one run, on one card
-                    a, b, c = in_turns(new, lambda: L.lstm_recurrence_bwd(
-                        *args, kernel="lstm_recurrence_bwd"), 3)
-                    o["ms"], o["ms_again"], o["cluster_ms"] = a, b, c
+                    o["fwd_ms"] = time_ms(new_fwd, 3)
                 else:
-                    o["ms"] = time_ms(new, 3)
-                o["fwd_ms"] = time_ms(lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd), 3)
+                    a, b, c = in_turns(new_fwd, lambda: L.lstm_recurrence_fwd(
+                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 3)
+                    o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = a, b, c
             else:
                 o["holes_ms"] = time_ms(new, 3)
             del xg, valid, w, dhs, hs, cs, want, got, args
         work = {k: recurrence_work(T_TRAIN, H, G, size)[k] for k in ("fwd", "bwd")}
         add_bounds(o, work, cd, {"bwd": kernel_peak(cd, sweep), "fwd": kernel_peak(cd, fwd)})
-        if cd == torch.float32:
-            o["cluster_bound_ms"], o["cluster_bound_by"] = bound(
-                [(*work["bwd"], kernel_peak(cd, "lstm_recurrence_bwd"))])
+        o["cluster_bound_ms"], o["cluster_bound_by"] = bound(
+            [(*work["bwd"], kernel_peak(cd, "lstm_recurrence_bwd"))])
         o["fwd_library_ms"], o["library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
         out[dt] = o
     return out
@@ -3591,9 +3582,136 @@ def mid_f32_instances(dev) -> dict:
     return out
 
 
+def mid_mma_instances(dev) -> dict:
+    """The op's bf16 sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_mma.cu``
+    at each width they take (96-288), D = 2: every instance (blocks a
+    cluster, row tile) held against its twin at T = 300, 400 rows in 5
+    weight groups, with masks from lengths and with holes, and at 27 rows
+    in 3 groups, T = 1 and 5 (short row tiles), to 3e-2 x max(1, max|ref|),
+    each computed twice (the same bits); then at T = 1500, 400 rows, masks
+    from lengths, each instance timed in turns with the dispatch (instance,
+    dispatch, dispatch, instance), and the dispatch beside the cluster
+    kernels by name and its bytes bound; each instance's registers and
+    spill bytes (the build's ``-Xptxas -v``), shared memory and the
+    clusters the card holds at once."""
+    import re
+
+    from intrepppid_tpu_torch.ops import _build
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+
+    cd, G = torch.bfloat16, G_TRAIN
+    names = {k: f"lstm_recurrence_{k}_mid_mma" for k in ("bwd", "fwd")}
+    built = {}
+    for kind, name in names.items():
+        log = _build.build_logs.get(name, "").splitlines()
+        for i, line in enumerate(log):
+            m = re.search(r"mid_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            if not m:
+                continue
+            nxt = next((j for j in range(i + 1, len(log)) if "Compiling entry" in log[j]),
+                       len(log))
+            tail = " ".join(log[i + 1:nxt])
+            regs = re.search(r"Used (\d+) registers", tail)
+            spill = re.search(r"(\d+) bytes spill stores", tail)
+            built[(kind, *(int(v) for v in m.groups()))] = (
+                int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None)
+    if not built:
+        raise AssertionError("no ptxas report of the bf16 mid-width kernels' instances")
+
+    def at(cluster, rows, fn):
+        keep = L.REC_MID_MMA_CLUSTER, L.REC_MID_MMA_ROWS
+        L.REC_MID_MMA_CLUSTER = {k: {H: cluster for H in L.REC_MID_MMA_WIDTHS} for k in keep[0]}
+        L.REC_MID_MMA_ROWS = (rows,)
+        try:
+            return fn()
+        finally:
+            L.REC_MID_MMA_CLUSTER, L.REC_MID_MMA_ROWS = keep
+
+    def instances(kind, H):
+        return [(c, r) for c, widths in L.REC_MID_MMA_INSTANCES.items() if H in widths
+                for r in L.REC_MID_MMA_ROWS if L.recurrence_mid_mma_smem(kind, H, r, c)
+                <= L.SMEM_LIMIT]
+
+    out = {}
+    for H in L.REC_MID_MMA_WIDTHS:
+        picked = (L.recurrence_sweep_kernel(H, cd), L.recurrence_fwd_kernel(H, cd))
+        if picked != (names["bwd"], names["fwd"]):
+            raise AssertionError(f"H={H} in bf16 runs {picked}")
+        o = {"B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "G": G, "check_T": 300,
+             "max_abs_err": {}, "instances": {}}
+        for mask, T, B, g in (("lengths", 300, B_TRAIN, G), ("holes", 300, B_TRAIN, G),
+                              ("lengths", 5, 27, 3), ("holes", 1, 27, 3)):
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T, H, g, cd, dev, mask,
+                                                            SEED + 97 + H + T, B=B)
+            fw = recurrence_fwd(xg, valid, w, g, cd)
+            args = (xg, valid, w, fw[0], fw[1], dhs, dhn, dcn, g, cd)
+            want = recurrence_sweep(*args)
+            wf = L.recurrence_mma_weights(w)
+            for kind in ("bwd", "fwd"):
+                for cluster, rows in instances(kind, H):
+                    if kind == "bwd":
+                        run = lambda: L.lstm_recurrence_bwd_mid_mma(*args, wf=wf)  # noqa: E731
+                        got, again = at(cluster, rows, run), at(cluster, rows, run)
+                        res = {"dxg": rel_err(got, want, TOL[cd])}
+                        same = torch.equal(got, again)
+                    else:
+                        run = lambda: L.lstm_recurrence_fwd_mid_mma(  # noqa: E731
+                            xg, valid, w, g, cd, wf=wf)
+                        got, again = at(cluster, rows, run), at(cluster, rows, run)
+                        res = {n: rel_err(a, b, TOL[cd])
+                               for n, a, b in zip(("hs", "cs", "hn", "cn"), got, fw)}
+                        same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    torch.cuda.synchronize()
+                    key = f"{kind}_cl{cluster}_r{rows}_{mask}_T{T}_B{B}"
+                    o["max_abs_err"][key] = max(e for e, _ in res.values())
+                    if not (all(ok for _, ok in res.values()) and same):
+                        emit({"phase": "recurrence_kernel", "failed": {
+                            "H": H, "instance": key, "same_bits_twice": same,
+                            "max_abs_err": {n: e for n, (e, _) in res.items()}}})
+                        raise AssertionError(f"{names[kind]} at H={H} ({key}) disagrees with "
+                                             f"its twin or across two runs")
+                    del got, again
+            del xg, valid, w, dhs, fw, args, want, wf
+        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, "lengths",
+                                                        SEED + 96 + H)
+        wf = L.recurrence_mma_weights(w)
+        hs, cs, _, _ = L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        calls = {"bwd": lambda: L.lstm_recurrence_bwd(*args, wf=wf),
+                 "fwd": lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)}
+        by_name = {"bwd": lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
+                   "fwd": lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd,
+                                                        kernel="lstm_recurrence_fwd")}
+        work = recurrence_work(T_TRAIN, H, G, 2)
+        for kind, name in names.items():
+            count = L._max_clusters(name, cd, H, dev)
+            o[f"{kind}_plan"] = dict(zip(("cluster", "rows", "tiles", "smem"),
+                                         L.recurrence_mid_mma_plan(
+                                             kind, B_TRAIN, G, H,
+                                             lambda c, R, m: count(R, m, c), dirs=D_REC)))
+            o[f"{kind}_ms"] = time_ms(calls[kind], 3)
+            o[f"{kind}_cluster_ms"] = time_ms(by_name[kind], 2)
+            o[f"{kind}_bound_ms"], o[f"{kind}_bound_by"] = bound(
+                [(*work[kind], kernel_peak(cd, name))])
+            for cluster, rows in instances(kind, H):
+                a, b, c = in_turns(lambda: at(cluster, rows, calls[kind]), calls[kind], 2)
+                smem = L.recurrence_mid_mma_smem(kind, H, rows, cluster)
+                regs, spill = built.get((kind, cluster, rows, -(-H // (8 * cluster))),
+                                        (None, None))
+                o["instances"][f"{kind}_cl{cluster}_r{rows}"] = {
+                    "ms": 0.5 * (a + b), "dispatch_ms": c, "smem": smem, "registers": regs,
+                    "spill_store_bytes": spill, "tiles": L.mma_tiles(B_TRAIN, G, rows),
+                    "max_active_clusters": count(rows, smem, cluster)}
+        del xg, valid, w, dhs, hs, cs, args, wf, calls, by_name
+        out[f"h{H}"] = o
+    return out
+
+
 def recurrence_past_288(dev) -> dict:
     """The recurrence op's kernels past the 256 units they once stopped at:
-    H = 288 (the cluster kernels' 288-thread instance), 512 and 1024 (the
+    H = 288 (in f32 the cluster forward's 288-thread instance, in bf16 the
+    tensor-core kernels of 96-288), 512 and 1024 (the
     tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma`` in bf16 and
     ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32), D = 2, 16 rows in 2
     weight groups, T = 64, masks from lengths, f32 and bf16: the forward,
@@ -3850,9 +3968,15 @@ def phase_recurrence_kernel(dev) -> dict:
                 t = {**shape, "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
-                t["fwd_ms"] = time_ms(new_fwd, 3)
-                if fwd != "lstm_recurrence_fwd":
-                    t["fwd_ms_again"] = time_ms(new_fwd, 3)
+                if fwd == "lstm_recurrence_fwd_mid_mma":
+                    # new, old, old, new: the cluster forward by name beside it
+                    t["fwd_ms"], t["fwd_ms_again"], t["fwd_cluster_ms"] = in_turns(
+                        new_fwd, lambda: L.lstm_recurrence_fwd(
+                            xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd"), 3)
+                else:
+                    t["fwd_ms"] = time_ms(new_fwd, 3)
+                    if fwd != "lstm_recurrence_fwd":
+                        t["fwd_ms_again"] = time_ms(new_fwd, 3)
                 new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
                 if wgrad == "lstm_recurrence_wgrad_mma":
                     # new, old, old, new: both wgrads in one run, on one card
@@ -3905,7 +4029,7 @@ def phase_recurrence_kernel(dev) -> dict:
     ragged = ragged_recurrence_check(dev)
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
            "timings": timings, "op_h128": op_sweep_h128(dev),
-           "mid_f32": mid_f32_instances(dev),
+           "mid_f32": mid_f32_instances(dev), "mid_mma": mid_mma_instances(dev),
            "past_288": recurrence_past_288(dev),
            "max_active_clusters": cluster_counts,
            "library": "one bidirectional nn.LSTM layer (cuDNN, full lengths; f32, and bf16 at "
@@ -3913,6 +4037,49 @@ def phase_recurrence_kernel(dev) -> dict:
                       "in the compute dtype"}
     emit(out)
     return out
+
+
+def cluster_step_turns(dev, batches, **widths) -> dict:
+    """The bf16 train step on the recurrence backend (``widths`` as the
+    factory takes them), profiled on the dispatch and with the op's
+    dispatch at 96-288 pinned to the cluster kernels
+    ``lstm_recurrence_{fwd,bwd}.cu`` (the step before their tensor-core
+    successors), in turns: dispatch, cluster, cluster, dispatch, one step
+    each, after a warm-up step of each. The device time of each step
+    (``profile_device``) and of the op's forward and sweep in it."""
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.train import Trainer
+
+    net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.bfloat16,
+                             optimizer_type="ranger21_xx", device=dev, seed=SEED, **widths)
+    trainer = Trainer(net, seed=SEED)
+    groups = {"fwd": "lstm_recurrence_fwd", "sweep": "lstm_recurrence_bwd"}
+    keep = L.recurrence_fwd_kernel, L.recurrence_sweep_kernel
+
+    def step(pinned):
+        if pinned:
+            L.recurrence_fwd_kernel = lambda H, cd: (
+                "lstm_recurrence_fwd" if 96 <= H <= 288 else keep[0](H, cd))
+            L.recurrence_sweep_kernel = lambda H, cd: (
+                "lstm_recurrence_bwd" if 96 <= H <= 288 else keep[1](H, cd))
+        try:
+            return profile_device(lambda: trainer.train_step(batches[0])["loss"].item(),
+                                  top=4, groups=groups)
+        finally:
+            L.recurrence_fwd_kernel, L.recurrence_sweep_kernel = keep
+
+    step(False)
+    step(True)
+    runs = [step(p) for p in (False, True, True, False)]
+    pick = lambda rs, k: [r["device_ms_by_group"][k] for r in rs]  # noqa: E731
+    new, old = (runs[0], runs[3]), (runs[1], runs[2])
+    return {"dtype": "bfloat16", **widths,
+            "device_ms": [r["device_ms"] for r in new],
+            "cluster_device_ms": [r["device_ms"] for r in old],
+            "wall_ms": [r["wall_ms"] for r in new], "cluster_wall_ms": [r["wall_ms"] for r in old],
+            "fwd_ms": pick(new, "fwd"), "cluster_fwd_ms": pick(old, "fwd"),
+            "sweep_ms": pick(new, "sweep"), "cluster_sweep_ms": pick(old, "sweep")}
 
 
 def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
@@ -3972,24 +4139,31 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                          "lstm_recurrence_wgrad"),
                         ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
                          "lstm_recurrence_wgrad_mma", "lstm_recurrence_bwd",
-                         "lstm_recurrence_bwd_mid_f32") + layer_kernels)
+                         "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
+                         "lstm_recurrence_bwd_mid_mma") + layer_kernels)
         # past 64 units a one-layer model at embedding 128: in f32 its sweep
         # is the tensor-core lstm_recurrence_bwd_mid_f32.cu (the cluster
-        # sweep must not launch), in bf16 the cluster sweep's main path
+        # sweep must not launch), in bf16 its forward and sweep are the
+        # tensor-core lstm_recurrence_{fwd,bwd}_mid_mma.cu (neither cluster
+        # kernel may launch)
         mid = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
                          "lstm_recurrence_wgrad"),
                         ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
                          "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma",
-                         "lstm_recurrence_bwd") + layer_kernels,
+                         "lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma",
+                         "lstm_recurrence_bwd_mid_mma") + layer_kernels,
                         embedding_size=128, rnn_num_layers=1)
         mid_bf16 = f32_steps(dev, batches,
-                             ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                             ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma",
                               "lstm_recurrence_wgrad_mma"),
-                             ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
+                             ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                              "lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
                               "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad",
                               "lstm_recurrence_bwd_mid_f32") + layer_kernels,
                              dtype=torch.bfloat16, embedding_size=128, rnn_num_layers=1)
+        mid_bf16["turns"] = cluster_step_turns(dev, batches, embedding_size=128,
+                                               rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -4003,7 +4177,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # never the cluster kernels (which take up to 288 units); no layer
     # kernel in either
     old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
-           "lstm_recurrence_bwd_mid_f32")
+           "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
+           "lstm_recurrence_bwd_mid_mma")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
     f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
@@ -4558,11 +4733,7 @@ def main() -> int:
     }
     # the one-block f32 wide forward (both variants, three tf32 passes): its
     # main path is the stacked layer of the f32 two-layer model at embedding
-    # 80 (run at H = 96). The CUDA-core wide forward (bilstm_fwd_wide.cu)
-    # runs on no path since: its times by name stand in these entries, in
-    # turns with the new kernel at 96 (cuda_core_ms) and on the bf16 scaled
-    # step's operands in turns with the bf16 tensor-core one
-    # (cuda_core_bf16_h256_ms). The CUDA-core lite sweep (bilstm_bwd_lite.cu)
+    # 80 (run at H = 96). The CUDA-core lite sweep (bilstm_bwd_lite.cu)
     # runs on no path since the bf16 tensor-core sweep took 160-224: its
     # times by name stand in bilstm_bwd_lite_mma's entry
     f32_scaled = scaled["grad_check"]["launches"]
@@ -4574,7 +4745,6 @@ def main() -> int:
     for key, name in (("fwd", "bilstm_fwd_wide_train_f32_resident"),
                       ("fwd_eval", "bilstm_fwd_wide_f32_resident")):
         main = k96_f32[key]
-        cuda_core_errs = tuple(f"cuda_core_{n}" for n in wide_errs[key])
         entry = {
             "name": name,
             "route": "cuda",
@@ -4587,22 +4757,14 @@ def main() -> int:
                                   for n, v in c["max_abs_err"].items()
                                   if n.startswith("fwd_eval_" if key == "fwd_eval" else "fwd_")]),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "true_bound_ms",
-                                    "library_ms", "scaled_err", "turns_ms")},
-            "cuda_core_ms": main["cuda_core_ms"],
-            "cuda_core_bf16_h256_ms": w16[f"{key}_cuda_core_ms"],
-            "cuda_core_bf16_h256_max_abs_err": max(
-                v for c in wk["checks"] if c["route"] == "wide"
-                for n, v in c["max_abs_err"].items() if n in cuda_core_errs),
+                                    "library_ms", "scaled_err")},
             "work": "the stacked layer of the f32 two-layer model at embedding 80 (E=80+80, run "
                     "at H=96, one weight group, one dy stream), 400 rows, T=1500, its main path: "
                     "launches in that model's f32 steps; bound at 495/3 TFLOP/s or the bytes at "
                     "H=96 (true_bound_ms at 80); library: cuDNN one-layer f32 "
                     + ("training forward" if key == "fwd" else "inference") + " at E=160, "
                     "H=80, TF32 off; max_abs_err also over 5 weight groups at T=300 and 27 rows "
-                    "in 3 groups at T=1 and 5; turns_ms / cuda_core_ms: new, old, old, new with "
-                    "bilstm_fwd_wide.cu by name on the same operands; cuda_core_bf16_h256_ms: "
-                    "bilstm_fwd_wide.cu by name on the bf16 scaled step's operands (layer 0 + "
-                    "one E=2x256 layer), in turns with the tensor-core kernel",
+                    "in 3 groups at T=1 and 5",
         }
         if entry["launches"] <= 0:
             raise AssertionError(f"the f32 model at embedding 80 never ran {name}")
@@ -4815,12 +4977,7 @@ def main() -> int:
         if key == "gates":
             entry["library_bf16_out_ms"] = w16["gates_library_bf16_out_ms"]
         elif key != "lite":
-            entry.update({"ms_again": w16[f"{key}_ms_again"],
-                          "cuda_core_ms": w16[f"{key}_cuda_core_ms"],
-                          "rows_ms": {k: v for k, v in w16.items()
-                                      if k.startswith(f"{key}_rows")}})
-            entry["work"] += ("; cuda_core_ms: the CUDA-core kernel by name on the same "
-                              "operands (new, old, old, new)")
+            entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith(f"{key}_rows")}
         else:
             entry["rows_ms"] = {k: v for k, v in w16.items() if k.startswith("lite_rows")}
         if key in ("fwd", "fwd_eval"):
@@ -5077,37 +5234,68 @@ def main() -> int:
                 "rows; widths_*: each width 96-288 at the same rows on the dispatch's plan; "
                 "max_abs_err over both masks at 128, 96-288 at T=300, 256 and 288 at T=1500",
     })
-    o = o128["bfloat16"]
-    kernels.append({
-        "name": "lstm_recurrence_bwd",
-        "route": "cuda",
-        "source": "intrepppid_tpu_torch/csrc/lstm_recurrence_bwd.cu",
-        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
-        "launches": rpath["bfloat16_steps_embedding_128"]["launches"]["lstm_recurrence_bwd"],
-        "max_abs_err": max(v for n, v in o["max_abs_err"].items() if n.endswith("_dxg")),
-        **{k: o[k] for k in ("ms", "plain_ms", "holes_ms", "library_ms")},
-        "bound_ms": o["bwd_bound_ms"],
-        "bound_by": o["bwd_bound_by"],
-        "fwd_ms": o["fwd_ms"], "fwd_bound_ms": o["fwd_bound_ms"],
-        "fwd_bound_by": o["fwd_bound_by"], "fwd_library_ms": o["fwd_library_ms"],
-        "h256_ms": h256["bfloat16"]["bwd_ms"], "h256_bound_ms": h256["bfloat16"]["bwd_bound_ms"],
-        "h256_library_ms": h256["bfloat16"]["bwd_library_ms"],
-        "h256_fwd_ms": h256["bfloat16"]["fwd_ms"],
-        "h256_fwd_bound_ms": h256["bfloat16"]["fwd_bound_ms"],
-        "h256_fwd_library_ms": h256["bfloat16"]["fwd_library_ms"],
-        "float32_ms": o128["float32"]["cluster_ms"],
-        "float32_h256_ms": h256["float32"]["bwd_cluster_ms"],
-        "h288_max_abs_err": max(c["max_abs_err"]["dxg"] for c in rk["past_288"]["checks"]
-                                if c["sweep"] == "lstm_recurrence_bwd"),
-        "work": "the layer of the bf16 recurrence-backend model at embedding 128 (5 weight "
-                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
-                "holes); bound: bytes at 3.35 TB/s; library: cuDNN bf16 one-layer nn.LSTM "
-                "backward (input), with the projection's dx; fwd_*: the cluster forward "
-                "lstm_recurrence_fwd.cu there, beside cuDNN bf16's training forward; "
-                "h256_*: H=256, the same rows; float32_*: by name in f32, in turns with "
-                "lstm_recurrence_bwd_mid_f32; h288_max_abs_err: its 288-thread instance at "
-                "H=288 in bf16",
-    })
+    # the op's bf16 sweep and forward at 96-288: the tensor-core
+    # lstm_recurrence_{bwd,fwd}_mid_mma.cu, each in turns with its cluster
+    # kernel by name (the cluster sweep is on no path in either dtype since)
+    o, mm = o128["bfloat16"], rk["mid_mma"]
+    turns = rpath["bfloat16_steps_embedding_128"]["turns"]
+    for key, name, replaces, errs in (
+            ("bwd", "lstm_recurrence_bwd_mid_mma", "lstm_pallas.py:185", ("dxg",)),
+            ("fwd", "lstm_recurrence_fwd_mid_mma", "lstm_pallas.py:116",
+             ("hs", "cs", "hn", "cn"))):
+        p = "" if key == "bwd" else "fwd_"
+        h = h256["bfloat16"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": rpath["bfloat16_steps_embedding_128"]["launches"][name],
+            "max_abs_err": max(
+                [v for n, v in o["max_abs_err"].items()
+                 if n.split("_", 1)[-1] in errs and (key == "bwd") == (not n.startswith("fwd_"))]
+                + [v for m in mm.values() for n, v in m["max_abs_err"].items()
+                   if n.startswith(key)]
+                + [v for c in rk["checks"] if c.get(key if key == "fwd" else "sweep") == name
+                   for n, v in c["max_abs_err"].items() if n in errs]),
+            "ms": o[f"{p}ms"], "ms_again": o[f"{p}ms_again"],
+            "cluster_ms": o[f"{p}cluster_ms"],
+            "plain_ms": o[f"{p}plain_ms"],
+            "bound_ms": o[f"{key}_bound_ms"],
+            "bound_by": o[f"{key}_bound_by"],
+            "library_ms": o[f"{p}library_ms"],
+            "grad_check_launches": sum(c["launches"].get(name, 0)
+                                       for c in widths["grad_checks"]),
+            "h256_ms": h[f"{key}_ms"], "h256_ms_again": h[f"{key}_ms_again"],
+            "h256_cluster_ms": h[f"{key}_cluster_ms"],
+            "h256_plain_ms": h[f"{key}_plain_ms"],
+            "h256_bound_ms": h[f"{key}_bound_ms"],
+            "h256_library_ms": h[f"{key}_library_ms"],
+            "widths_ms": {k: m[f"{key}_ms"] for k, m in mm.items()},
+            "widths_cluster_ms": {k: m[f"{key}_cluster_ms"] for k, m in mm.items()},
+            "widths_bound_ms": {k: m[f"{key}_bound_ms"] for k, m in mm.items()},
+            "step_device_ms": turns["device_ms"],
+            "step_cluster_device_ms": turns["cluster_device_ms"],
+            "step_kernel_ms": turns["sweep_ms" if key == "bwd" else "fwd_ms"],
+            "step_cluster_kernel_ms": turns["cluster_sweep_ms" if key == "bwd"
+                                            else "cluster_fwd_ms"],
+            "work": "the layer of the bf16 recurrence-backend model at embedding 128 (5 weight "
+                    "groups), D=2, 400 rows, T=1500, H=128, masks from lengths"
+                    + ("" if key == "fwd" else " (holes_ms: with holes)")
+                    + "; bound: bytes at 3.35 TB/s; cluster_ms: lstm_recurrence_"
+                    + key + ".cu by name in turns (new, old, old, new); library: cuDNN bf16 "
+                    "one-layer nn.LSTM " + ("backward (input), with the projection's dx"
+                                            if key == "bwd" else "training forward")
+                    + "; grad_check_launches: the recurrence backend's bf16 gradient and eval "
+                    "steps at embedding 80 (run at 96); h256_*: H=256, the same rows; "
+                    "widths_*: each width 96-288 at the same rows on the dispatch's plan; "
+                    "step_*: that model's train step profiled on the dispatch and with the "
+                    "dispatch pinned to the cluster kernels (dispatch, cluster, cluster, "
+                    "dispatch); max_abs_err over both masks at 128 and 256, every instance at "
+                    "96-288 (T=300 and 27 rows at T=1 and 5)",
+        })
+        if key == "bwd":
+            kernels[-1]["holes_ms"] = o["holes_ms"]
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     # the tensor-core forward: the bf16 recurrence-backend step's
@@ -5274,7 +5462,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 39 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 40 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

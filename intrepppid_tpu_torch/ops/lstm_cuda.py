@@ -50,8 +50,9 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     Plain twin of both: ``ops/lstm.py:input_gates``.
   * ``bilstm_fwd_wide`` (eval) and ``bilstm_fwd_wide_train`` are the
     recurrence over those gates with ``W_hh`` split over a cluster of 8
-    blocks or, at 96 in bf16, in one block, by one of four kernels
-    (``wide_fwd_kernel``): ``bilstm_fwd_wide_mma`` and
+    blocks or, at 96, in one block, by one of four kernels
+    (``wide_fwd_kernel``), the wrappers themselves only dispatching:
+    ``bilstm_fwd_wide_mma`` and
     ``bilstm_fwd_wide_train_mma`` launch ``csrc/bilstm_fwd_wide_mma.cu``
     (bf16, H = 128-288 in steps of 32: the product on the tensor cores; at
     160, 192, 224 and 288 an instance whose cluster splits the unit groups
@@ -62,11 +63,12 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``bilstm_fwd_wide_mma_resident`` and
     ``bilstm_fwd_wide_train_mma_resident`` launch
     ``csrc/bilstm_fwd_wide_mma_resident.cu`` (bf16 at 96: one block a row
-    tile, ``W_hh`` as ``mma.sync`` fragments in registers), the two wrappers
-    themselves launch ``csrc/bilstm_fwd_wide.cu`` for the rest (f32 at 96;
-    CUDA cores). With ``bilstm_gates``,
-    the counterpart of ``_fwd_pallas`` at these widths. Plain twin of all
-    four: ``ops/lstm.py:bidir_recurrence``.
+    tile, ``W_hh`` as ``mma.sync`` fragments in registers),
+    ``bilstm_fwd_wide_f32_resident`` and
+    ``bilstm_fwd_wide_train_f32_resident`` launch
+    ``csrc/bilstm_fwd_wide_f32_resident.cu`` (f32 at 96: the same in three
+    tf32 passes). With ``bilstm_gates``, the counterpart of ``_fwd_pallas``
+    at these widths. Plain twin of all four: ``ops/lstm.py:bidir_recurrence``.
   * ``bilstm_bwd_lite`` is the sweep over the gate streams of
     ``lstm_pallas_layer.py:723 _bwd_pallas_lite`` (f32 gate cotangents
     out), by one of four kernels (``lite_kernel``), the wrapper itself only
@@ -105,11 +107,18 @@ Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
-of its own: three on the wide route's cluster design (the forward and the
-sweep up to 288 units, wgrad at every width), and six tensor-core ones:
+of its own: three on the CUDA cores (the cluster forward and sweep up to
+288 units, the sweep now on no path and reached by name; the f32 wgrad),
+and the tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
-  _fwd_pallas``, by one of three kernels (``recurrence_fwd_kernel``):
+  _fwd_pallas``, by one of five kernels (``recurrence_fwd_kernel``):
+  ``lstm_recurrence_fwd_mma`` launches ``csrc/lstm_recurrence_fwd_mma.cu``
+  (bf16 at H = 32 and 64: one block per 8-row tile),
+  ``lstm_recurrence_fwd_mid_mma`` launches
+  ``csrc/lstm_recurrence_fwd_mid_mma.cu`` (bf16 at 96-288: clusters of 4 or
+  8 blocks, each holding its share of the bf16 weight fragments,
+  ``recurrence_mma_weights``, in shared memory),
   ``lstm_recurrence_fwd_wide_mma`` launches
   ``csrc/lstm_recurrence_fwd_wide_mma.cu`` (bf16 past 288: 8-block
   clusters, the product on ``mma.sync`` from bf16 weight fragments read
@@ -117,10 +126,10 @@ sweep up to 288 units, wgrad at every width), and six tensor-core ones:
   launches ``csrc/lstm_recurrence_fwd_wide_f32.cu`` (f32 past 288: the same
   design in three tf32 passes on the sweep's f32 fragment copy),
   ``lstm_recurrence_fwd`` itself launches the cluster kernel
-  ``csrc/lstm_recurrence_fwd.cu`` for the rest (to 288). Plain twin of all
-  three: ``recurrence_fwd``.
+  ``csrc/lstm_recurrence_fwd.cu`` for the rest (f32 to 288; bf16 there by
+  name). Plain twin of all five: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
-  _bwd_pallas`` (``dxg``), by one of five kernels
+  _bwd_pallas`` (``dxg``), by one of six tensor-core kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
   ``csrc/lstm_recurrence_bwd_mma.cu`` (bf16, H = 32 or 64: one block per
   row tile, tensor cores), ``lstm_recurrence_bwd_f32`` launches
@@ -131,9 +140,15 @@ sweep up to 288 units, wgrad at every width), and six tensor-core ones:
   ``lstm_recurrence_bwd_wide_f32`` launches
   ``csrc/lstm_recurrence_bwd_wide_f32.cu`` (f32 past 288: the same design
   in three tf32 passes on an f32 copy of the weight fragments,
-  ``recurrence_f32_weights``), ``lstm_recurrence_bwd`` itself launches the
-  cluster kernel ``csrc/lstm_recurrence_bwd.cu`` for the rest (96 to 288).
-  Plain twin of all five: ``recurrence_sweep``.
+  ``recurrence_f32_weights``), ``lstm_recurrence_bwd_mid_f32`` launches
+  ``csrc/lstm_recurrence_bwd_mid_f32.cu`` (f32 at 96-288: three tf32 passes,
+  clusters of 4 or 8 blocks holding their share of the f32 fragments),
+  ``lstm_recurrence_bwd_mid_mma`` launches
+  ``csrc/lstm_recurrence_bwd_mid_mma.cu`` (bf16 at 96-288: the same design
+  in one bf16 pass on the forward's bf16 fragments);
+  ``lstm_recurrence_bwd`` itself launches the cluster kernel
+  ``csrc/lstm_recurrence_bwd.cu`` only when asked for by name (96 to 288,
+  either dtype). Plain twin of all seven: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
@@ -225,18 +240,18 @@ SMEM_LIMIT = 232448
 # (kMmaTile, kMaxH, kMaxThreads, kWPad, kFPad, kStages),
 # bilstm_fwd_wide_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads, kHPad, kFPad,
 # kStages), lstm_recurrence_bwd_mid_f32.cu (kThreads, kFPad, its widths, row
-# tiles and instances)
+# tiles and instances), lstm_recurrence_{bwd,fwd}_mid_mma.cu (kThreads, kPad,
+# their widths, row tiles and instances; the forward's kXPad, kStages,
+# kStagesAt8, kMaskBytes)
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
-# the wide kernels' blocks hold H threads, one per unit: at most 288 (a
-# second instance past WIDE_SMALL_THREADS, built where a route takes 257-288
-# units: the recurrence op's cluster kernels, in both dtypes; the CUDA-core
-# wide forward stops at WIDE_SMALL_THREADS); the recurrence
-# op's widest H on the card (its tensor-core kernels past 288); the wide
-# route's input parts are multiples of WIDE_PART_STEP wide
+# the recurrence op's CUDA-core cluster kernels' blocks hold H threads, one
+# per unit: at most 288 (a second instance past 256); the recurrence op's
+# widest H on the card (its tensor-core kernels past 288); the wide route's
+# input parts are multiples of WIDE_PART_STEP wide
 WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
-WIDE_SMALL_THREADS, WIDE_PART_STEP = 256, 16
+WIDE_PART_STEP = 16
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
 MMA_TILE, MMA_STAGES, MMA_MAX_H, MMA_PAD = 8, 3, 64, 8
@@ -372,6 +387,22 @@ REC_MID_F32_INSTANCES = {(8, True): (96, 128, 160, 192, 224, 256),
                          (4, True): (96, 128, 160, 192)}
 REC_MID_F32_CLUSTER = {96: 4, 128: 4, 160: 4, 192: 4}
 REC_MID_F32_FROM_L2 = (288,)
+# the op's bf16 tensor-core sweep and forward at 96-288
+# (lstm_recurrence_{bwd,fwd}_mid_mma.cu, one bf16 pass on the fragment copy
+# of w, recurrence_mma_weights, each block's share resident in shared
+# memory): their widths and row tiles; the widths each cluster size is
+# instantiated for (8 blocks at every width, 4 where a block's unit groups
+# do not outnumber its 8 warps, 96-256); the plan's cluster size by kind
+# and width (8 where not named: the faster in turns on an H100, PERF.md;
+# at 256 the sweep's 8-block clusters in 32-row tiles beat the 4-block ones
+# in 16-row tiles); the forward's cp.async stages (fewer where
+# a block owns 8 groups, H = 256 in 4-block clusters), the padding of its
+# f32 xg ring rows and a stage's mask bytes
+REC_MID_MMA_WIDTHS, REC_MID_MMA_ROWS = (96, 128, 160, 192, 224, 256, 288), (16, 32)
+REC_MID_MMA_INSTANCES = {8: (96, 128, 160, 192, 224, 256, 288), 4: (96, 128, 160, 192, 224, 256)}
+REC_MID_MMA_CLUSTER = {"bwd": {96: 4, 128: 4, 160: 4, 192: 4, 224: 4},
+                       "fwd": {96: 4, 128: 4, 160: 4, 192: 4, 224: 4, 256: 4}}
+REC_FWD_MID_MMA_STAGES, REC_FWD_MID_MMA_X_PAD, REC_FWD_MID_MMA_MASK_BYTES = (5, 4), 4, 48
 # the f32 tensor-core input gates (three tf32 passes): the bf16 one's
 # block tile, input columns a stage (64 bytes of a row), cp.async stages,
 # and its dynamic shared memory (f32 rows padded by 4)
@@ -413,7 +444,6 @@ _SIGNATURES = {
     "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
-    "bilstm_fwd_wide": ("bilstm_fwd_wide", [_I, _I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
@@ -449,6 +479,10 @@ _SIGNATURES = {
                                      [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_bwd_mid_f32": ("lstm_recurrence_bwd_mid_f32",
                                     [_I] * 3 + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_bwd_mid_mma": ("lstm_recurrence_bwd_mid_mma",
+                                    [_I] * 2 + [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_fwd_mid_mma": ("lstm_recurrence_fwd_mid_mma",
+                                    [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -486,9 +520,6 @@ _CONSTANTS = {
                           "bilstm_wgrad_mma_smem"),
                          (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
                           WGRAD_MMA_STAGES, WGRAD_MMA_SMEM)),
-    "bilstm_fwd_wide": (("bilstm_fwd_wide_cluster", "bilstm_fwd_wide_max_threads",
-                         "bilstm_fwd_wide_rows_mask"),
-                        (WIDE_CLUSTER, WIDE_SMALL_THREADS, _WIDE_ROWS_MASK)),
     "bilstm_gates_mma": (("bilstm_gates_mma_tile_m", "bilstm_gates_mma_tile_n",
                           "bilstm_gates_mma_tile_k", "bilstm_gates_mma_stages",
                           "bilstm_gates_mma_smem"),
@@ -595,6 +626,16 @@ _CONSTANTS = {
          max(REC_MID_F32_WIDTHS), sum(1 << (r // 8) for r in REC_MID_F32_ROWS),
          *(sum(1 << (h // 32) for h in REC_MID_F32_INSTANCES[k])
            for k in ((8, True), (8, False), (4, True))))),
+    **{f"lstm_recurrence_{kind}_mid_mma": (
+        tuple(f"lstm_recurrence_{kind}_mid_mma_{c}" for c in (
+            "threads", "pad", "min_h", "max_h", "rows", "widths8", "widths4") + extra[0]),
+        (REC_WIDE_MMA_THREADS, MMA_PAD, min(REC_MID_MMA_WIDTHS), max(REC_MID_MMA_WIDTHS),
+         sum(1 << (r // 8) for r in REC_MID_MMA_ROWS),
+         *(sum(1 << (h // 32) for h in REC_MID_MMA_INSTANCES[c]) for c in (8, 4)), *extra[1]))
+       for kind, extra in (("bwd", ((), ())),
+                           ("fwd", (("x_pad", "stages", "stages_at8", "mask_bytes"),
+                                    (REC_FWD_MID_MMA_X_PAD, *REC_FWD_MID_MMA_STAGES,
+                                     REC_FWD_MID_MMA_MASK_BYTES))))},
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -1336,10 +1377,9 @@ def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
     ``fwd_wide_f32_check`` passes (f32 at 128-288),
     ``"bilstm_fwd_wide_mma_resident"`` where ``fwd_wide_mma_resident_plan``
     takes it (bf16 at 96), ``"bilstm_fwd_wide_f32_resident"`` where
-    ``fwd_wide_f32_resident_plan`` takes it (f32 at 96), else
-    ``"bilstm_fwd_wide"`` where ``wide_check`` passes (the widths the
-    tensor-core forwards do not take: 32 and 64, which no layer runs wide);
-    ValueError naming the refusals otherwise."""
+    ``fwd_wide_f32_resident_plan`` takes it (f32 at 96); ValueError naming
+    the refusals otherwise (32 and 64 among them, which no layer runs
+    wide)."""
     refusals = []
     for name, check in (("bilstm_fwd_wide_mma", fwd_wide_mma_check),
                         ("bilstm_fwd_wide_f32", fwd_wide_f32_check),
@@ -1350,35 +1390,8 @@ def wide_fwd_kernel(H: int, dtype: torch.dtype) -> str:
             return name
         except ValueError as e:
             refusals.append(str(e))
-    try:
-        if dtype not in _DTYPE_CODES:
-            raise ValueError(f"bilstm_fwd_wide kernel takes float32 or bfloat16, got {dtype}")
-        wide_check(H)
-    except ValueError as cores:
-        raise ValueError("; ".join([str(cores)] + refusals)) from None
-    return "bilstm_fwd_wide"
-
-
-# the widths where the CUDA-core wide forward lost to a tensor-core kernel
-# timed in turns: refused by name too (``kernel=``); the other widths up to
-# WIDE_SMALL_THREADS stay by name, to time them beside the kernels that took
-# them (bf16 at 128 and 256)
-CUDA_CORE_WIDE_RETIRED = {
-    "bilstm_fwd_wide": {torch.float32: (128, 160, 192, 224, 256),
-                        torch.bfloat16: (96, 160, 192, 224)},
-}
-
-
-def cuda_core_wide_check(name: str, H: int, dtype: torch.dtype) -> None:
-    """ValueError where the CUDA-core ``csrc/<name>.cu`` (``name``
-    "bilstm_fwd_wide") asked for by name is refused: past
-    ``WIDE_SMALL_THREADS`` units and at the widths of
-    ``CUDA_CORE_WIDE_RETIRED``."""
-    retired = CUDA_CORE_WIDE_RETIRED[name]
-    if H > WIDE_SMALL_THREADS or H in retired.get(dtype, ()):
-        raise ValueError(f"{name}: csrc/{name}.cu takes H <= {WIDE_SMALL_THREADS}, and f32 "
-                         f"outside {list(retired[torch.float32])} and bf16 outside "
-                         f"{list(retired[torch.bfloat16])}, got {dtype}, H={H}")
+    raise ValueError(f"bilstm_fwd_wide: no wide forward kernel takes H={H} in {dtype}; "
+                     + "; ".join(refusals))
 
 
 def fwd_wide_f32_rows(H: int) -> Tuple[int, ...]:
@@ -1510,14 +1523,15 @@ def wide_plan(kind: str, B: int, G: int, H: int,
 _cluster_counts: Dict[tuple, int] = {}
 # the operands between (dtype, rows_per_thread) and (T, B, H, G, tiles,
 # smem) of each wide kernel's C entry, when it only reports occupancy
-_NO_OPERANDS = {"bilstm_fwd_wide": [None] * 9,
-                "bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
+_NO_OPERANDS = {"bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
                 "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
                 "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
                 "lstm_recurrence_bwd_mid_f32": [None] * 9 + [1],
+                "lstm_recurrence_bwd_mid_mma": [None] * 9 + [1],
+                "lstm_recurrence_fwd_mid_mma": [None] * 7 + [1],
                 "lstm_recurrence_fwd_wide_f32": [None] * 7 + [1],
                 "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_f32": [None] * 9}
@@ -2502,9 +2516,9 @@ def _wide_fwd_outputs(T, B, H, cd, dev, with_states):
 
 
 def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
-    """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide",
-    "bilstm_fwd_wide_mma" or "bilstm_fwd_wide_f32") on the row tile its plan
-    picks, counted on ``wrapper``; an empty batch launches nothing."""
+    """A wide forward launch of the kernel ``name`` ("bilstm_fwd_wide_mma"
+    or "bilstm_fwd_wide_f32") on the row tile its plan picks, counted on
+    ``wrapper``; an empty batch launches nothing."""
     dev, T, B, H, G, w_hh = _wide_operands(xg, lengths, w_hh, cd, name)
     outs = _wide_fwd_outputs(T, B, H, cd, dev, with_states)
     hs_f, hs_b, hn, cn = outs[:4]
@@ -2513,14 +2527,13 @@ def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
         return outs
     if name == "bilstm_fwd_wide_f32":
         # the lite sweep's f32 fragment copy of W_hh^T (2, G, H, 4H)
-        lead, kind, w = [], "fwd_f32", recurrence_f32_weights(w_hh.transpose(-1, -2))
+        kind, w = "fwd_f32", recurrence_f32_weights(w_hh.transpose(-1, -2))
     else:
-        mma = name == "bilstm_fwd_wide_mma"
-        lead, kind, w = [] if mma else [_DTYPE_CODES[cd]], "fwd_mma" if mma else "fwd", w_hh
+        kind, w = "fwd_mma", w_hh
     rows, tiles, smem = wide_plan(kind, B, G, H, _max_clusters(name, cd, H, dev))
     with torch.cuda.device(dev):
         err = getattr(_kernels(name), name)(
-            *lead, rows, xg.data_ptr(), lengths.data_ptr(),
+            rows, xg.data_ptr(), lengths.data_ptr(),
             w.data_ptr(), hs_f.data_ptr(), hs_b.data_ptr(), _opt_ptr(cs_f), _opt_ptr(cs_b),
             hn.data_ptr(), cn.data_ptr(), T, B, H, G, tiles, smem,
             torch.cuda.current_stream(dev).cuda_stream, None,
@@ -2531,19 +2544,17 @@ def _fwd_wide_launch(wrapper, name, xg, lengths, w_hh, cd, with_states):
 
 
 def _fwd_wide_dispatch(wrappers, xg, lengths, w_hh, cd, kernel, with_states):
-    """``wrappers``: the CUDA-core wrapper, which counts
-    ``csrc/bilstm_fwd_wide.cu``, then the tensor-core ones by kernel name."""
-    wrapper, tensor_core = wrappers[0], dict(zip(
+    """``wrappers``: the tensor-core wide forwards of one variant, in the
+    order of their kernel names below; another name is refused, on the CPU
+    too, where the plain twin runs."""
+    tensor_core = dict(zip(
         ("bilstm_fwd_wide_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_mma_resident",
-         "bilstm_fwd_wide_f32_resident"), wrappers[1:]))
-    if kernel not in (None, "bilstm_fwd_wide", *tensor_core):
+         "bilstm_fwd_wide_f32_resident"), wrappers))
+    if kernel not in (None, *tensor_core):
         raise ValueError(f"bilstm_fwd_wide: no wide forward kernel named {kernel!r}")
-    name = kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)
-    if name in tensor_core:
-        return tensor_core[name](xg, lengths, w_hh, cd)
-    cuda_core_wide_check("bilstm_fwd_wide", xg.shape[-1] // 4, cd)
-    _no_graph(xg, w_hh)
-    return _fwd_wide_launch(wrapper, "bilstm_fwd_wide", xg, lengths, w_hh, cd, with_states)
+    if not xg.is_cuda:
+        return bidir_recurrence(xg, lengths, w_hh, cd, with_states=with_states)
+    return tensor_core[kernel or wide_fwd_kernel(xg.shape[-1] // 4, cd)](xg, lengths, w_hh, cd)
 
 
 def bilstm_fwd_wide(
@@ -2563,23 +2574,18 @@ def bilstm_fwd_wide(
         (2, B, H)`` f32.
 
     On the card the recurrence runs the kernel ``wide_fwd_kernel`` names for
-    its width and dtype: a tensor-core one through :func:`bilstm_fwd_wide_mma`
-    (bf16 at H = 128-288), :func:`bilstm_fwd_wide_f32` (f32 at 128-288),
+    its width and dtype (``kernel`` names one of them instead; another name
+    is refused, on the CPU too), a tensor-core one through
+    :func:`bilstm_fwd_wide_mma` (bf16 at H = 128-288),
+    :func:`bilstm_fwd_wide_f32` (f32 at 128-288),
     :func:`bilstm_fwd_wide_mma_resident` (bf16 at 96) or
-    :func:`bilstm_fwd_wide_f32_resident` (f32 at 96; their ``.launches``
-    then count them), or ``csrc/bilstm_fwd_wide.cu`` here (at 32 and 64,
-    which no layer runs wide). ``kernel="bilstm_fwd_wide"`` asks for the
-    latter by name at the widths ``cuda_core_wide_check`` leaves it (to time
-    it beside the others).
+    :func:`bilstm_fwd_wide_f32_resident` (f32 at 96), whose ``.launches``
+    counts it; it raises at the widths none takes (32 and 64, which no layer
+    runs wide).
     """
-    if not xg.is_cuda:
-        return bidir_recurrence(xg, lengths, w_hh, compute_dtype)
-    return _fwd_wide_dispatch((bilstm_fwd_wide, bilstm_fwd_wide_mma, bilstm_fwd_wide_f32,
+    return _fwd_wide_dispatch((bilstm_fwd_wide_mma, bilstm_fwd_wide_f32,
                                bilstm_fwd_wide_mma_resident, bilstm_fwd_wide_f32_resident), xg,
                               lengths, w_hh, compute_dtype, kernel, False)
-
-
-bilstm_fwd_wide.launches = 0
 
 
 def bilstm_fwd_wide_train(
@@ -2595,15 +2601,10 @@ def bilstm_fwd_wide_train(
     :func:`bilstm_fwd_wide_train_f32`,
     :func:`bilstm_fwd_wide_train_mma_resident` and
     :func:`bilstm_fwd_wide_train_f32_resident`."""
-    if not xg.is_cuda:
-        return bidir_recurrence(xg, lengths, w_hh, compute_dtype, with_states=True)
     return _fwd_wide_dispatch(
-        (bilstm_fwd_wide_train, bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32,
+        (bilstm_fwd_wide_train_mma, bilstm_fwd_wide_train_f32,
          bilstm_fwd_wide_train_mma_resident, bilstm_fwd_wide_train_f32_resident), xg, lengths,
         w_hh, compute_dtype, kernel, True)
-
-
-bilstm_fwd_wide_train.launches = 0
 
 
 def _fwd_wide_mma(wrapper, xg, lengths, w_hh, cd, with_states):
@@ -3266,19 +3267,21 @@ def recurrence_wide_f32_check(H: int, compute_dtype: torch.dtype) -> None:
 def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's forward takes, by width and compute
     dtype alone: bfloat16 at H = 32 or 64 the tensor-core
-    ``"lstm_recurrence_fwd_mma"`` (one block per 8-row tile); past
-    ``WIDE_MAX_THREADS`` units the tensor-core ones,
-    ``"lstm_recurrence_fwd_wide_mma"`` for bfloat16 and
-    ``"lstm_recurrence_fwd_wide_f32"`` (three tf32 passes) for float32; the
-    cluster kernel ``"lstm_recurrence_fwd"`` for the rest (float32 up to
-    288, bfloat16 from 96 to 288); ValueError for what none takes
-    (``recurrence_check``)."""
+    ``"lstm_recurrence_fwd_mma"`` (one block per 8-row tile), from 96 to 288
+    the tensor-core ``"lstm_recurrence_fwd_mid_mma"`` (clusters whose blocks
+    hold their share of the weight fragments); past ``WIDE_MAX_THREADS``
+    units the tensor-core ones, ``"lstm_recurrence_fwd_wide_mma"`` for
+    bfloat16 and ``"lstm_recurrence_fwd_wide_f32"`` (three tf32 passes) for
+    float32; the cluster kernel ``"lstm_recurrence_fwd"`` for float32 up to
+    288; ValueError for what none takes (``recurrence_check``)."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS and compute_dtype == torch.bfloat16:
         return "lstm_recurrence_fwd_mma"
     if H > WIDE_MAX_THREADS:
         return "lstm_recurrence_fwd_wide_mma" if compute_dtype == torch.bfloat16 \
             else "lstm_recurrence_fwd_wide_f32"
+    if compute_dtype == torch.bfloat16:
+        return "lstm_recurrence_fwd_mid_mma"
     return "lstm_recurrence_fwd"
 
 
@@ -3289,10 +3292,11 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     ``"lstm_recurrence_bwd_f32"`` (three tf32 passes) for float32; bfloat16
     past ``WIDE_MAX_THREADS`` the tensor-core
     ``"lstm_recurrence_bwd_wide_mma"``, float32 there
-    ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); float32 from 96
-    to 288 the tensor-core ``"lstm_recurrence_bwd_mid_f32"`` (three tf32
-    passes); the cluster kernel ``"lstm_recurrence_bwd"`` for the rest
-    (bfloat16 from 96 to 288); ValueError for what none takes."""
+    ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); from 96 to 288
+    the tensor-core ``"lstm_recurrence_bwd_mid_f32"`` (three tf32 passes)
+    for float32 and ``"lstm_recurrence_bwd_mid_mma"`` for bfloat16;
+    ValueError for what none takes. The cluster kernel
+    ``"lstm_recurrence_bwd"`` is on no path: it is asked for by name."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
@@ -3302,7 +3306,7 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
             else "lstm_recurrence_bwd_wide_f32"
     if compute_dtype == torch.float32:
         return "lstm_recurrence_bwd_mid_f32"
-    return "lstm_recurrence_bwd"
+    return "lstm_recurrence_bwd_mid_mma"
 
 
 def recurrence_mid_f32_check(H: int, compute_dtype: torch.dtype) -> None:
@@ -3359,6 +3363,72 @@ def recurrence_mid_f32_plan(B: int, G: int, H: int, max_clusters, dirs: int = 2)
         raise ValueError(f"lstm_recurrence_bwd_mid_f32: H={H} leaves no row tile in shared "
                          f"memory")
     return (cluster, resident) + best[1:]
+
+
+def recurrence_mid_mma_check(H: int, compute_dtype: torch.dtype) -> None:
+    """ValueError for a width or compute dtype the recurrence op's bf16
+    tensor-core kernels at 96-288 (``lstm_recurrence_{bwd,fwd}_mid_mma``)
+    do not take: they take bfloat16 at H in ``REC_MID_MMA_WIDTHS``."""
+    if compute_dtype != torch.bfloat16 or H not in REC_MID_MMA_WIDTHS:
+        raise ValueError(
+            f"lstm_recurrence_bwd_mid_mma and lstm_recurrence_fwd_mid_mma take compute dtype "
+            f"bfloat16 with H in {list(REC_MID_MMA_WIDTHS)}, got H={H}, {compute_dtype}")
+
+
+def recurrence_mid_mma_smem(kind: str, H: int, rows: int, cluster: int) -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_{kind}_mid_mma``
+    (``kind`` "bwd" or "fwd") at H units, a row tile of ``rows`` and
+    ``cluster`` blocks a cluster (``csrc/lstm_recurrence_{bwd,fwd}_mid_mma.cu:
+    smem_bytes``): first the block's share of the bf16 weight fragments, 64
+    bytes a unit group and input for the most groups a block owns,
+    ceil(H / 8 / cluster). "bwd": then the f32 h_prev tile, its bf16
+    rounding and the block's bf16 dgates tile (32 gate columns a group),
+    rows padded by ``MMA_PAD``, and the f32 partial dh of all H units (rows
+    padded to 8 mod 16). "fwd": two bf16 h tiles, the block's new h staged
+    (8 units a group), rows padded by ``MMA_PAD``, the cp.async ring of f32
+    xg rows (4 gates x 8 units a group + ``REC_FWD_MID_MMA_X_PAD``) and of
+    mask bytes, ``REC_FWD_MID_MMA_STAGES[0]`` stages, or ``[1]`` where a
+    block owns 8 groups. ValueError for a width
+    ``recurrence_mid_mma_check`` refuses or a combination with no instance
+    (``REC_MID_MMA_INSTANCES``, ``REC_MID_MMA_ROWS``)."""
+    recurrence_mid_mma_check(H, torch.bfloat16)
+    if kind not in ("bwd", "fwd") or rows not in REC_MID_MMA_ROWS \
+            or H not in REC_MID_MMA_INSTANCES.get(cluster, ()):
+        raise ValueError(f"lstm_recurrence_{kind}_mid_mma: no instance for a row tile of "
+                         f"{rows}, {cluster}-block clusters at H={H}")
+    groups, pad = -(-H // (8 * cluster)), MMA_PAD
+    w = groups * H * 64
+    if kind == "bwd":
+        return (w + rows * H * 4 + rows * (H + pad) * 2 + rows * (32 * groups + pad) * 2
+                + H * (rows + (8 - rows) % 16) * 4)
+    stages = REC_FWD_MID_MMA_STAGES[groups >= 8]
+    return (w + 2 * rows * (H + pad) * 2 + rows * (8 * groups + pad) * 2
+            + stages * (rows * (32 * groups + REC_FWD_MID_MMA_X_PAD) * 4
+                        + REC_FWD_MID_MMA_MASK_BYTES))
+
+
+def recurrence_mid_mma_plan(kind: str, B: int, G: int, H: int, max_clusters, dirs: int = 2):
+    """``(cluster, rows, tiles, smem_bytes)`` of a launch of
+    ``lstm_recurrence_{kind}_mid_mma``: ``REC_MID_MMA_CLUSTER[kind]``'s
+    blocks a cluster at H (8 where it names none), and among
+    ``REC_MID_MMA_ROWS`` the row tile whose clusters fill the card in the
+    fewest waves, then the smallest. ``max_clusters(cluster, rows, smem)``
+    is how many clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    cluster = REC_MID_MMA_CLUSTER[kind].get(H, WIDE_CLUSTER)
+    best = None
+    for rows in REC_MID_MMA_ROWS:
+        smem = recurrence_mid_mma_smem(kind, H, rows, cluster)
+        if smem > SMEM_LIMIT:
+            continue
+        tiles = mma_tiles(B, G, rows)
+        waves = -(-dirs * tiles // max(1, max_clusters(cluster, rows, smem)))
+        if best is None or waves < best[0]:
+            best = (waves, rows, tiles, smem)
+    if best is None:
+        raise ValueError(f"lstm_recurrence_{kind}_mid_mma: H={H} leaves no row tile in shared "
+                         f"memory")
+    return (cluster,) + best[1:]
 
 
 def recurrence_wide_mma_smem(kind: str, H: int, rows: int) -> int:
@@ -3448,6 +3518,21 @@ def recurrence_mma_weights(w: torch.Tensor) -> torch.Tensor:
         .contiguous()
 
 
+def recurrence_fragments(w: torch.Tensor, compute_dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The fragment copy of ``w (D, G, H, 4H)`` that both the op's forward
+    and its sweep read on the card at H in ``compute_dtype``:
+    ``recurrence_mma_weights(w)`` where the bf16 forward is a cluster
+    kernel on the tensor cores (96 to ``REC_MAX_H``),
+    ``recurrence_f32_weights(w)`` where the f32 one is (past 288), None
+    elsewhere (the f32 sweep at 96-288 builds its own)."""
+    kernel = recurrence_fwd_kernel(w.shape[-2], compute_dtype)
+    if kernel in ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_fwd_wide_mma"):
+        return recurrence_mma_weights(w)
+    if kernel == "lstm_recurrence_fwd_wide_f32":
+        return recurrence_f32_weights(w)
+    return None
+
+
 def recurrence_mma_smem(H: int) -> int:
     """Dynamic shared memory of the tensor-core recurrence sweep's block:
     the bf16 ``w`` (4H x H, rows padded), two bf16 dgates tiles, and three
@@ -3510,21 +3595,23 @@ def lstm_recurrence_fwd(
 
     On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
     for its width and dtype: a tensor-core one through
-    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_wide_mma` or
+    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_mid_mma`,
+    :func:`lstm_recurrence_fwd_wide_mma` or
     :func:`lstm_recurrence_fwd_wide_f32` (whose ``.launches`` then counts it;
-    ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where the
-    caller has it, goes to the last), or the cluster kernel here (up to 288
-    units). ``kernel="lstm_recurrence_fwd"`` asks for the latter by name (to
-    time it beside the others; not in bf16 at ``REC_MMA_WIDTHS``, where the
-    tensor-core forward took over).
+    ``wf``, the fragment copy of ``w`` where the caller has it, goes to the
+    last three: ``recurrence_mma_weights(w)`` in bf16,
+    ``recurrence_f32_weights(w)`` in f32), or the cluster kernel here (f32
+    up to 288 units). ``kernel="lstm_recurrence_fwd"`` asks for the latter
+    by name (to time it beside the others; in bf16 too from 96 to 288, not
+    at ``REC_MMA_WIDTHS``, where the tensor-core forward took over).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_fwd"
-    if kernel not in (None, name, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd_wide_mma",
-                      "lstm_recurrence_fwd_wide_f32"):
+    if kernel not in (None, name, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd_mid_mma",
+                      "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_fwd_wide_f32"):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
     if kernel == name and recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mma":
@@ -3533,8 +3620,10 @@ def lstm_recurrence_fwd(
     kernel = kernel or recurrence_fwd_kernel(H, cd)
     if kernel == "lstm_recurrence_fwd_mma":
         return lstm_recurrence_fwd_mma(xg, valid, w, G, cd)
+    if kernel == "lstm_recurrence_fwd_mid_mma":
+        return lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd, wf)
     if kernel == "lstm_recurrence_fwd_wide_mma":
-        return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd)
+        return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd, wf)
     if kernel == "lstm_recurrence_fwd_wide_f32":
         return lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
     _cluster_width(name, H)
@@ -3596,16 +3685,65 @@ def lstm_recurrence_fwd_mma(
 lstm_recurrence_fwd_mma.launches = 0
 
 
+def lstm_recurrence_fwd_mid_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+    wf: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward on the tensor cores at 96-288 units
+    (``csrc/lstm_recurrence_fwd_mid_mma.cu``: clusters of 4 or 8 blocks,
+    each holding its share of the bf16 fragment copy of the weights,
+    ``recurrence_mma_weights``, in shared memory; the (unit group, n8 tile)
+    items dealt over the warps; the new h exchanged through distributed
+    shared memory; xg and the mask through a cp.async ring); the contract of
+    :func:`lstm_recurrence_fwd`. ``wf`` is that copy of ``w`` where the
+    caller has it, else it is built here. Takes bfloat16 at H in
+    ``REC_MID_MMA_WIDTHS`` and raises for the rest; the launch is
+    ``recurrence_mid_mma_plan("fwd", ...)``'s. On the CPU the plain twin;
+    under grad mode an operand that requires grad is refused."""
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_fwd_mid_mma"
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    recurrence_mid_mma_check(H, cd)
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    count = _max_clusters(name, cd, H, dev)
+    cluster, rows, tiles, smem = recurrence_mid_mma_plan(
+        "fwd", B, G, H, lambda c, R, m: count(R, m, c), dirs=D)
+    wf = _mma_copy(w, wf)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd_mid_mma(
+            cluster, rows, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles, smem,
+            torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd_mid_mma.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd_mid_mma.launches = 0
+
+
 def lstm_recurrence_fwd_wide_mma(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+    wf: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The recurrence's forward on the tensor cores past 288 units
     (``csrc/lstm_recurrence_fwd_wide_mma.cu``: 8-block clusters, the bf16
     weight fragments read from L2 once a step for the whole row tile); the
-    contract of :func:`lstm_recurrence_fwd`. Takes bfloat16 with H % 32 == 0
-    from 320 to ``REC_MAX_H`` and raises for the rest."""
+    contract of :func:`lstm_recurrence_fwd`. ``wf`` is the fragment copy
+    ``recurrence_mma_weights(w)`` where the caller has built it
+    (``FusedLSTMRecurrence`` builds it once for the forward and the sweep),
+    else it is built here. Takes bfloat16 with H % 32 == 0 from 320 to
+    ``REC_MAX_H`` and raises for the rest."""
     return _wide_recurrence_fwd(lstm_recurrence_fwd_wide_mma, recurrence_wide_mma_check,
-                                "rec_fwd_mma", recurrence_mma_weights, xg, valid, w, G,
+                                "rec_fwd_mma", lambda w: _mma_copy(w, wf), xg, valid, w, G,
                                 compute_dtype)
 
 
@@ -3665,6 +3803,16 @@ def _wide_recurrence_fwd(wrapper, check, plan, copy, xg, valid, w, G, compute_dt
     return hs, cs, hn, cn
 
 
+def _mma_copy(w: torch.Tensor, wf: Optional[torch.Tensor]) -> torch.Tensor:
+    """``wf`` checked as the bf16 fragment copy of ``w``'s shape, or that
+    copy built (``recurrence_mma_weights``)."""
+    if wf is None:
+        return recurrence_mma_weights(w)
+    D, G, H, _ = w.shape
+    _check("wf", wf, (D, G, H // 8, H // 16, 2, 32, 8), torch.bfloat16, w.device)
+    return wf
+
+
 def _f32_copy(w: torch.Tensor, wf: Optional[torch.Tensor]) -> torch.Tensor:
     """``wf`` checked as the f32 fragment copy of ``w``'s shape, or that
     copy built (``recurrence_f32_weights``)."""
@@ -3703,33 +3851,36 @@ def lstm_recurrence_bwd(
     ``dcn (D, B, H)`` are f32, or None for zero.
 
     On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
-    for its width and dtype: a tensor-core one through
+    for its width and dtype, a tensor-core one: through
     :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32`,
     :func:`lstm_recurrence_bwd_wide_mma`,
-    :func:`lstm_recurrence_bwd_wide_f32` or
-    :func:`lstm_recurrence_bwd_mid_f32` (whose ``.launches`` then counts
-    it; ``wf``, the f32 fragment copy ``recurrence_f32_weights(w)`` where
-    the caller has it, goes to the last two), or the cluster kernel here (up
-    to 288 units: bf16 from 96). ``kernel="lstm_recurrence_bwd"`` asks for
-    the latter by name (to time it beside the others; in f32 too)."""
+    :func:`lstm_recurrence_bwd_wide_f32`,
+    :func:`lstm_recurrence_bwd_mid_f32` or
+    :func:`lstm_recurrence_bwd_mid_mma` (whose ``.launches`` then counts
+    it; ``wf``, the fragment copy of ``w`` where the caller has it, goes to
+    the last four: ``recurrence_mma_weights(w)`` in bf16,
+    ``recurrence_f32_weights(w)`` in f32). The cluster kernel here (96 to
+    288 units) runs on no path: ``kernel="lstm_recurrence_bwd"`` asks for it
+    by name (to time it beside the others, in either dtype)."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, "lstm_recurrence_bwd_mid_f32", *_TILE_SWEEP, *_WIDE_SWEEP):
+    if kernel not in (None, name, "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_bwd_mid_mma",
+                      *_TILE_SWEEP, *_WIDE_SWEEP):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
         name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     kernel = kernel or recurrence_sweep_kernel(H, cd)
     if kernel in _TILE_SWEEP:
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-    if kernel == "lstm_recurrence_bwd_wide_f32":
-        return lstm_recurrence_bwd_wide_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel == "lstm_recurrence_bwd_mid_f32":
         return lstm_recurrence_bwd_mid_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
+    if kernel == "lstm_recurrence_bwd_mid_mma":
+        return lstm_recurrence_bwd_mid_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel in _WIDE_SWEEP:
-        return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     _cluster_width(name, H)
     dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
     if B * D * T == 0:
@@ -3753,17 +3904,19 @@ lstm_recurrence_bwd.launches = 0
 def lstm_recurrence_bwd_wide_mma(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
     dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
-    G: int, compute_dtype: torch.dtype,
+    G: int, compute_dtype: torch.dtype, wf: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The recurrence's backward sweep on the tensor cores past 288 units
     (``csrc/lstm_recurrence_bwd_wide_mma.cu``: 8-block clusters, both
     products on ``mma.sync`` from the bf16 weight fragments in L2, the
     partial dh summed in rank order); the contract of
-    :func:`lstm_recurrence_bwd`. Takes bfloat16 with H % 32 == 0 from 320
-    to ``REC_MAX_H`` and raises for the rest."""
+    :func:`lstm_recurrence_bwd`. ``wf`` is the fragment copy
+    ``recurrence_mma_weights(w)`` where the caller has it (the forward's),
+    else it is built here. Takes bfloat16 with H % 32 == 0 from 320 to
+    ``REC_MAX_H`` and raises for the rest."""
     return _wide_recurrence_sweep(lstm_recurrence_bwd_wide_mma, recurrence_wide_mma_check,
-                                  "rec_bwd_mma", recurrence_mma_weights, xg, valid, w, hs, cs,
-                                  dhs, dhn, dcn, G, compute_dtype)
+                                  "rec_bwd_mma", lambda w: _mma_copy(w, wf), xg, valid, w, hs,
+                                  cs, dhs, dhn, dcn, G, compute_dtype)
 
 
 lstm_recurrence_bwd_wide_mma.launches = 0
@@ -3833,6 +3986,49 @@ def lstm_recurrence_bwd_mid_f32(
 
 
 lstm_recurrence_bwd_mid_f32.launches = 0
+
+
+def lstm_recurrence_bwd_mid_mma(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+    dhs: Optional[torch.Tensor], dhn: Optional[torch.Tensor], dcn: Optional[torch.Tensor],
+    G: int, compute_dtype: torch.dtype, wf: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The recurrence's backward sweep in bf16 on the tensor cores at 96-288
+    units (``csrc/lstm_recurrence_bwd_mid_mma.cu``: clusters of 4 or 8
+    blocks, each holding its share of the bf16 fragment copy of the
+    weights, ``recurrence_mma_weights``, in shared memory; the (unit group,
+    n8 tile) items dealt over the warps; the partial dh summed in rank
+    order); the contract of :func:`lstm_recurrence_bwd`. ``wf`` is that copy
+    of ``w`` where the caller has it (the forward's), else it is built here.
+    Takes bfloat16 at H in ``REC_MID_MMA_WIDTHS`` and raises for the rest;
+    the launch is ``recurrence_mid_mma_plan("bwd", ...)``'s. On the CPU the
+    plain twin; under grad mode an operand that requires grad is refused."""
+    _no_graph(xg, w, hs, cs)
+    if not xg.is_cuda:
+        return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_bwd_mid_mma"
+    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
+        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    recurrence_mid_mma_check(H, cd)
+    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
+    if B * D * T == 0:
+        return dxg
+    count = _max_clusters(name, cd, H, dev)
+    cluster, rows, tiles, smem = recurrence_mid_mma_plan(
+        "bwd", B, G, H, lambda c, R, m: count(R, m, c), dirs=D)
+    wf = _mma_copy(w, wf)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_bwd_mid_mma(
+            cluster, rows, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(), D, T,
+            B, H, G, tiles, smem, torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_bwd_mid_mma.launches += 1
+    return dxg
+
+
+lstm_recurrence_bwd_mid_mma.launches = 0
 # the recurrence sweeps past 288 on the tensor cores, by kernel name
 _WIDE_SWEEP = {"lstm_recurrence_bwd_wide_mma": lstm_recurrence_bwd_wide_mma,
                "lstm_recurrence_bwd_wide_f32": lstm_recurrence_bwd_wide_f32}

@@ -177,17 +177,18 @@ class FusedLSTMRecurrence(torch.autograd.Function):
     ``lstm_cuda.recurrence_width(H)``: a width the kernels do not take is
     padded with zero units, and what comes back is cut to H. Past the
     card's widest (``REC_MAX_H``) a CUDA tensor raises and a CPU tensor
-    runs the plain versions unpadded. On the card in f32 past 288 units the
-    forward and the sweep read one f32 fragment copy of the weights
-    (``lstm_cuda.recurrence_f32_weights``), built once here; from 96 to 288
-    only the sweep reads it, and its wrapper builds it once a backward."""
+    runs the plain versions unpadded. On the card the forward and the sweep
+    read one fragment copy of the weights (``lstm_cuda.recurrence_fragments``),
+    built once here and saved for the backward: in bf16 from 96 units
+    (``recurrence_mma_weights``), in f32 past 288
+    (``recurrence_f32_weights``); in f32 from 96 to 288 only the sweep
+    reads one, and its wrapper builds it once a backward."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):
         from intrepppid_tpu_torch.ops.lstm_cuda import (
             lstm_recurrence_fwd,
-            recurrence_f32_weights,
-            recurrence_fwd_kernel,
+            recurrence_fragments,
             recurrence_width,
         )
 
@@ -195,10 +196,7 @@ class FusedLSTMRecurrence(torch.autograd.Function):
         H = w.shape[-2]
         Hp = recurrence_width(H, compute_dtype, on_card=xg.is_cuda)
         xg_k, w_k = _padded(xg, w, H, Hp)
-        wf = None
-        if xg.is_cuda and recurrence_fwd_kernel(Hp, compute_dtype) == \
-                "lstm_recurrence_fwd_wide_f32":
-            wf = recurrence_f32_weights(w_k.detach())
+        wf = recurrence_fragments(w_k.detach(), compute_dtype) if xg.is_cuda else None
         hs, cs, hn, cn = lstm_recurrence_fwd(xg_k, valid, w_k, G, compute_dtype, wf=wf)
         ctx.save_for_backward(xg, valid, w, hs, cs)
         ctx.G, ctx.compute_dtype, ctx.wf = G, compute_dtype, wf

@@ -54,8 +54,7 @@ def test_every_kernel_source_is_built_and_bound():
     from intrepppid_tpu_torch.ops import _build, lstm_cuda
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad",
-                       "bilstm_fwd_wide", "lstm_recurrence_fwd",
+    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "lstm_recurrence_fwd",
                        "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
@@ -66,7 +65,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_bwd_lite_f32", "bilstm_gates_f32", "bilstm_fwd_wide_f32",
                        "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma",
                        "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_mma_resident",
-                       "bilstm_fwd_wide_f32_resident", "lstm_recurrence_bwd_mid_f32"}
+                       "bilstm_fwd_wide_f32_resident", "lstm_recurrence_bwd_mid_f32",
+                       "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_mid_mma"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -183,13 +183,28 @@ def test_every_kernel_source_is_built_and_bound():
     body = (_build.CSRC / "lstm_recurrence_bwd_mid_f32.cu").read_text().rsplit("#include", 1)[1]
     assert "dh_fragment(" in body and "mma3(" in body and "deal_items(" in body
     assert "clusterDim.x = CL" in body and "ldg_weight(" in body and "w_s[idx]" in body
+    # the op's bf16 sweep and forward at 96-288: one bf16 pass on the bf16
+    # fragment copy (through lstm_recurrence_wide_mma.cuh), each block's share
+    # copied once into shared memory, the item deal, clusters of 4 or 8
+    # blocks, the sweep's partials and the forward's new h through
+    # distributed shared memory by mapped 32-bit addresses; the sweep's dh
+    # product on the same fragments transposed in registers, the forward's xg
+    # and mask through a cp.async ring
+    for name, exchange, own in (("lstm_recurrence_bwd_mid_mma", "ld_dsmem_f2(", "movmatrix_trans("),
+                                ("lstm_recurrence_fwd_mid_mma", "st_dsmem_v4(", "cp_async16_n(")):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "lstm_recurrence_wide_mma.cuh"' in text
+        body = text.rsplit("#include", 1)[1]
+        assert "mma_a4(" in body and "deal_items(" in body and "w_s[idx]" in body, name
+        assert "clusterDim.x = CL" in body and exchange in body and "mapa_u32(" in body, name
+        assert own in body and "ldmatrix_x4(" in body, name
+        assert "mma_tf32(" not in body and "map_shared_rank(" not in body, name
     # the CUDA-core cluster kernels dispatch each width to a block instance
-    # (256 threads, and 288 where a route takes 257-288 units in the dtype:
-    # the recurrence op in both, the wide forward in neither); none reads its
-    # weight slice from a global copy
-    for name, dispatch in (
-            ("bilstm_fwd_wide", "dispatch_wide<kWideSmallThreads, kWideSmallThreads>("),
-            ("lstm_recurrence_fwd", "dispatch_wide("), ("lstm_recurrence_bwd", "dispatch_wide(")):
+    # (256 threads, and 288 where a route takes 257-288 units: the
+    # recurrence op, in both dtypes); none reads its weight slice from a
+    # global copy
+    for name, dispatch in (("lstm_recurrence_fwd", "dispatch_wide("),
+                           ("lstm_recurrence_bwd", "dispatch_wide(")):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert dispatch in text and "wl" not in text.split(), name
         assert "kGlobalW" not in text and "__launch_bounds__(kThreads, 1)" in text

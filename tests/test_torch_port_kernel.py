@@ -189,8 +189,8 @@ def test_train_wrappers_take_plain_versions_on_cpu():
 def test_wide_wrappers_take_plain_versions_on_cpu():
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
-    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_f32,
+                lstm_cuda.bilstm_fwd_wide_train_f32)
     counts = [f.launches for f in wrappers]
     xg = lstm_cuda.bilstm_gates(parts, w_ih, bias, torch.float32)
     assert xg.shape == (2, 6, 4, 128) and xg.dtype == torch.float32
@@ -661,8 +661,14 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
 @pytest.mark.parametrize("H,dtype,kernel", [
     (64, torch.bfloat16, "lstm_recurrence_bwd_mma"), (32, torch.bfloat16, "lstm_recurrence_bwd_mma"),
     (64, torch.float32, "lstm_recurrence_bwd_f32"), (32, torch.float32, "lstm_recurrence_bwd_f32"),
-    (128, torch.bfloat16, "lstm_recurrence_bwd"), (256, torch.bfloat16, "lstm_recurrence_bwd"),
-    (96, torch.bfloat16, "lstm_recurrence_bwd"),
+    # bf16 at 96-288: the tensor-core sweep of those widths (ids kept from
+    # the cluster sweep's cases)
+    pytest.param(128, torch.bfloat16, "lstm_recurrence_bwd_mid_mma",
+                 id="128-dtype4-lstm_recurrence_bwd"),
+    pytest.param(256, torch.bfloat16, "lstm_recurrence_bwd_mid_mma",
+                 id="256-dtype5-lstm_recurrence_bwd"),
+    pytest.param(96, torch.bfloat16, "lstm_recurrence_bwd_mid_mma",
+                 id="96-dtype6-lstm_recurrence_bwd"),
     # f32 at 96-288: the tensor-core sweep in three tf32 passes (ids kept from
     # the cluster sweep's cases)
     pytest.param(256, torch.float32, "lstm_recurrence_bwd_mid_f32",
@@ -671,7 +677,8 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
                  id="96-dtype8-lstm_recurrence_bwd"),
     pytest.param(128, torch.float32, "lstm_recurrence_bwd_mid_f32",
                  id="128-dtype9-lstm_recurrence_bwd"),
-    (288, torch.bfloat16, "lstm_recurrence_bwd"),
+    pytest.param(288, torch.bfloat16, "lstm_recurrence_bwd_mid_mma",
+                 id="288-dtype10-lstm_recurrence_bwd"),
     pytest.param(288, torch.float32, "lstm_recurrence_bwd_mid_f32",
                  id="288-dtype11-lstm_recurrence_bwd"),
     (320, torch.bfloat16, "lstm_recurrence_bwd_wide_mma"),
@@ -686,9 +693,10 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     """bf16 at H = 32 / 64 takes the tensor-core sweep, f32 there its three
     tf32 passes (whose pre-split weights fit one block); past 288 the
     tensor-core sweeps of the wide widths, bf16 and (three tf32 passes)
-    f32, up to the op's 1024 on the card; from H = 96 to 288 f32 takes the
-    tensor-core sweep of those widths (three tf32 passes, a row tile that
-    fits shared memory at each) and the cluster sweep keeps bf16."""
+    f32, up to the op's 1024 on the card; from H = 96 to 288 f32 and bf16
+    take the tensor-core sweeps of those widths (f32 in three tf32 passes),
+    each with a row tile that fits shared memory at each width; the cluster
+    sweep is on no path."""
     if kernel is None:
         with pytest.raises(ValueError, match="lstm_recurrence_bwd_mma takes bfloat16"):
             lstm_cuda.recurrence_sweep_kernel(H, dtype)
@@ -709,13 +717,23 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
                              H not in lstm_cuda.REC_MID_F32_FROM_L2)
         assert min(lstm_cuda.recurrence_mid_f32_smem(H, R, cluster, resident) for R in
                    lstm_cuda.REC_MID_F32_ROWS) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("mid_mma"):
+        cluster = lstm_cuda.REC_MID_MMA_CLUSTER["bwd"].get(H, 8)
+        assert min(lstm_cuda.recurrence_mid_mma_smem("bwd", H, R, cluster) for R in
+                   lstm_cuda.REC_MID_MMA_ROWS) <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,dtype,kernel", [
     (32, torch.bfloat16, "lstm_recurrence_fwd_mma"), (64, torch.float32, "lstm_recurrence_fwd"),
     (64, torch.bfloat16, "lstm_recurrence_fwd_mma"), (32, torch.float32, "lstm_recurrence_fwd"),
-    (96, torch.bfloat16, "lstm_recurrence_fwd"),
-    (256, torch.bfloat16, "lstm_recurrence_fwd"), (288, torch.bfloat16, "lstm_recurrence_fwd"),
+    # bf16 at 96-288: the tensor-core forward of those widths (ids kept from
+    # the cluster forward's cases)
+    pytest.param(96, torch.bfloat16, "lstm_recurrence_fwd_mid_mma",
+                 id="96-dtype4-lstm_recurrence_fwd"),
+    pytest.param(256, torch.bfloat16, "lstm_recurrence_fwd_mid_mma",
+                 id="256-dtype5-lstm_recurrence_fwd"),
+    pytest.param(288, torch.bfloat16, "lstm_recurrence_fwd_mid_mma",
+                 id="288-dtype6-lstm_recurrence_fwd"),
     (288, torch.float32, "lstm_recurrence_fwd"),
     (320, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
     (352, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
@@ -727,10 +745,11 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     (48, torch.bfloat16, None), (64, torch.float16, None), (1056, torch.bfloat16, None)])
 def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
     """The forward's picker, by width and dtype alone: bf16 at H = 32 and 64
-    the tensor-core forward with one block a row tile; past 288 the
-    tensor-core forwards, bf16 and (three tf32 passes) f32, up to the op's
-    1024 on the card; the cluster kernel for the rest (f32 up to 288, bf16
-    from 96); what none takes is refused by the op's check."""
+    the tensor-core forward with one block a row tile, from 96 to 288 the
+    tensor-core forward whose blocks hold their share of the weights; past
+    288 the tensor-core forwards, bf16 and (three tf32 passes) f32, up to
+    the op's 1024 on the card; the cluster kernel for f32 up to 288; what
+    none takes is refused by the op's check."""
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
             lstm_cuda.recurrence_fwd_kernel(H, dtype)
@@ -739,6 +758,10 @@ def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
     if kernel.endswith("wide_f32"):
         assert min(lstm_cuda.recurrence_wide_f32_smem(H, R, "fwd") for R in
                    lstm_cuda.REC_WIDE_F32_FWD_ROWS[1 if H <= 512 else 2]) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("mid_mma"):
+        cluster = lstm_cuda.REC_MID_MMA_CLUSTER["fwd"].get(H, 8)
+        assert min(lstm_cuda.recurrence_mid_mma_smem("fwd", H, R, cluster) for R in
+                   lstm_cuda.REC_MID_MMA_ROWS) <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,D", [(32, 1), (64, 2), (64, 3)])
@@ -770,9 +793,9 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     and bf16 names the forward, sweep and wgrad it named before the
     tensor-core kernels past 288, except the bf16 forward and sweep there,
     the f32 forward and sweep there (three tf32 passes), the bf16
-    forward at 32 and 64 (the tensor-core one with one block a row tile)
-    and the f32 sweep from 96 to 288 (the tensor-core one of those widths);
-    what was refused stays refused."""
+    forward at 32 and 64 (the tensor-core one with one block a row tile),
+    the f32 sweep from 96 to 288 and the bf16 forward and sweep there (the
+    tensor-core ones of those widths); what was refused stays refused."""
     def parent(H, dtype):
         sweep = "lstm_recurrence_bwd"
         if H in (32, 64):
@@ -800,6 +823,8 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
                 want = ("lstm_recurrence_fwd_mma",) + want[1:]
             if dtype == torch.float32 and 96 <= H <= 288:
                 want = (want[0], "lstm_recurrence_bwd_mid_f32", want[2])
+            if dtype == torch.bfloat16 and 96 <= H <= 288:
+                want = ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma", want[2])
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
 
 
@@ -1680,7 +1705,8 @@ def test_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
         # bf16 at 96: one block, W_hh in registers (id kept from the cluster kernel's case)
         pytest.param(96, torch.bfloat16, "bilstm_fwd_wide_mma_resident",
                      id="96-dtype5-bilstm_fwd_wide"),
-        (32, torch.bfloat16, "bilstm_fwd_wide"),
+        # 32: no wide forward since csrc/bilstm_fwd_wide.cu was retired (id kept)
+        pytest.param(32, torch.bfloat16, None, id="32-dtype6-bilstm_fwd_wide"),
         (80, torch.bfloat16, None),
         (288, torch.float32, "bilstm_fwd_wide_f32"),  # 4 or 5 unit groups a block
         (288, torch.bfloat16, "bilstm_fwd_wide_mma"),  # its instance for uneven groups
@@ -1733,9 +1759,7 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                 assert lstm_cuda.wide_fwd_kernel(H, dtype) == (
                     "bilstm_fwd_wide_mma_resident" if (H, bf16) == (96, True)
                     else "bilstm_fwd_wide_f32_resident" if H == 96
-                    else "bilstm_fwd_wide_f32" if not bf16 and H % 32 == 0 and H >= 128
-                    else "bilstm_fwd_wide" if not bf16
-                    else "bilstm_fwd_wide_mma")
+                    else "bilstm_fwd_wide_f32" if not bf16 else "bilstm_fwd_wide_mma")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
             if H % 32 == 0 or (bf16 and H % 8 == 0):
                 assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
@@ -1820,15 +1844,15 @@ def test_fwd_wide_mma_plan_at_288():
 def test_new_tensor_core_wrappers_take_plain_versions_on_cpu():
     """On the CPU the tensor-core sweep at E = H = 80 and the wide forward at
     H = 288 (both variants) run their plain twins, bit for bit, and launch
-    nothing; the CUDA-core kernels asked for by name do the same."""
+    nothing; the CUDA-core sweep and the tensor-core forward asked for by
+    name do the same."""
     cpu, cd = torch.device("cpu"), torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(4, 10, [80], 80, 2, cd, cpu)
     hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
                                                with_states=True)
     args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
             cd)
-    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_mma,
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide_mma,
                 lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
@@ -1841,10 +1865,11 @@ def test_new_tensor_core_wrappers_take_plain_versions_on_cpu():
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     for got in (lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                kernel="bilstm_fwd_wide_mma")):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide_mma")):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
     assert [f.launches for f in wrappers] == before
 
@@ -1883,17 +1908,16 @@ def test_wide_forward_mma_and_wgrad_f32_wrappers_take_plain_versions_on_cpu():
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(6, 4, [128], 128, 2, cd,
                                                           torch.device("cpu"))
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
                 lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_f32)
     before = [f.launches for f in wrappers]
     xg = input_gates(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     for got in (lstm_cuda.bilstm_fwd_wide_train_mma(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_fwd_wide_mma(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
     f32 = layer_case(5, 6, [32, 32], 32, 2, torch.float32, torch.device("cpu"))
     parts32 = f32[0]
@@ -1992,13 +2016,11 @@ def test_fwd_wide_f32_smem_and_plan(H):
 def test_f32_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     """On the CPU the f32 tensor-core gates and wide forward (both variants)
     run their plain twins bit for bit and launch
-    nothing; so does the dispatch, and so does the CUDA-core forward named
-    where it runs on the CPU. They refuse bf16 and, under grad mode,
-    operands that require grad."""
+    nothing; so does the dispatch, and so does the forward named. They
+    refuse bf16 and, under grad mode, operands that require grad."""
     cpu, cd = torch.device("cpu"), torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [16, 32], 288, 5, cd, cpu)
-    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_f32,
+    wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_f32,
                 lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     want_xg = input_gates(parts, w_ih, bias, cd)
@@ -2012,7 +2034,8 @@ def test_f32_tensor_core_wide_wrappers_take_plain_versions_on_cpu():
     got = lstm_cuda.bilstm_fwd_wide_f32(xg, lengths, w_hh, cd)
     assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
     for got in (lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                kernel="bilstm_fwd_wide_f32")):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
     bf16 = torch.bfloat16
@@ -2330,26 +2353,29 @@ def test_fwd_wide_mma_resident_plan_and_dispatch():
 @pytest.mark.parametrize("G", [1, 3])
 def test_fwd_wide_mma_resident_wrappers_take_plain_versions_on_cpu(G):
     """On the CPU the one-block bf16 wide forward (both variants), the
-    dispatch and the cluster kernel asked for by name run the plain twin
-    bit for bit and launch nothing; under grad mode the wrappers refuse an
-    operand that requires grad."""
+    dispatch and the dispatch asked for it by name run the plain twin bit
+    for bit and launch nothing; the retired cluster kernel's name is
+    refused; under grad mode the wrappers refuse an operand that requires
+    grad."""
     cpu, cd, H = torch.device("cpu"), torch.bfloat16, 96
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 9, [32, 32], H, G, cd, cpu)
     xg = input_gates(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_mma_resident,
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma_resident,
                 lstm_cuda.bilstm_fwd_wide_train_mma_resident)
     before = [f.launches for f in wrappers]
     for got in (lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                kernel="bilstm_fwd_wide_mma_resident")):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
-    for fwd in wrappers[2:]:
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
+    for fwd in wrappers:
         with pytest.raises(RuntimeError, match="no autograd graph"):
             fwd(xg.clone().requires_grad_(), lengths, w_hh, cd)
         with torch.no_grad():
@@ -2462,10 +2488,10 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     leave short row tiles inside each group. The gates are the tensor-core
     kernels (in f32 three tf32 passes), and at H = 128 and 256 the forward
     and the sweep are too, counted on their own wrappers; the CUDA-core
-    forward is held by name too in bf16 (in f32 at 128 and 256 it refuses
-    by name); at H = 32, where no layer runs wide, the lite sweep refuses
-    (its CUDA-core kernel is gone) and nothing falls back; in f32 wgrad is
-    the 3xTF32 kernel at every width here."""
+    forward's name is refused (its source is retired); at H = 32, where no
+    layer runs wide, the forward and the lite sweep refuse (their CUDA-core
+    kernels are gone) and nothing falls back; in f32 wgrad is the 3xTF32
+    kernel at every width here."""
     T = 24
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -2477,9 +2503,7 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
             assert float((a.float() - b.float()).abs().max()) <= tol * max(
                 1.0, float(b.float().abs().max()))
 
-    wrappers = (lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
+    wrappers = (lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
                 lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_wgrad_f32,
                 lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_f32,
@@ -2491,24 +2515,24 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     lite = lstm_cuda.lite_kernel(H, dtype) if H >= 96 else None  # none at 32
     lite_mma = lite == "bilstm_bwd_lite_mma"
     lite_f32 = lite == "bilstm_bwd_lite_f32"
-    fwd_mma = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_mma"
-    fwd_f32 = lstm_cuda.wide_fwd_kernel(H, dtype) == "bilstm_fwd_wide_f32"
+    fwd = lstm_cuda.wide_fwd_kernel(H, dtype) if H >= 96 else None  # none at 32
+    fwd_mma, fwd_f32 = fwd == "bilstm_fwd_wide_mma", fwd == "bilstm_fwd_wide_f32"
     assert gates_mma == (dtype == torch.bfloat16)
     assert lstm_cuda.gates_kernel(E_parts, H, dtype) == (
         "bilstm_gates_mma" if gates_mma else "bilstm_gates_f32")
     assert lite_mma == fwd_mma == (dtype == torch.bfloat16 and H in (128, 256))
     assert lite_f32 == fwd_f32 == (dtype == torch.float32 and H in (128, 256))
     ref = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
-    close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
-    close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
-    if fwd_mma:
-        close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
-              ref)
-        close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide"),
-              ref[:4])
-    if fwd_f32:
-        with pytest.raises(ValueError, match="and f32 outside"):
-            lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
+    if H < 96:
+        for fwd in (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide):
+            with pytest.raises(ValueError, match=f"no wide forward kernel takes H={H}"):
+                fwd(xg, lengths, w_hh, dtype)
+    else:
+        close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), ref)
+        close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, dtype), ref[:4])
+    # csrc/bilstm_fwd_wide.cu is retired: its name is refused
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
     hs_f, hs_b, _, _, cs_f, cs_b = ref
     ny = 2 if len(E_parts) == 1 else 1
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny], dhn, dcn, dtype)
@@ -2526,9 +2550,8 @@ def test_wide_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        int(not fwd_f32), int(not fwd_f32), int(gates_mma), int(lite_mma),
-        int(fwd_mma), int(fwd_mma), 0, int(bf16), int(not bf16), int(lite_f32),
-        int(not gates_mma), int(fwd_f32), int(fwd_f32)]
+        int(gates_mma), int(lite_mma), int(fwd_mma), int(fwd_mma), 0, int(bf16), int(not bf16),
+        int(lite_f32), int(not gates_mma), int(fwd_f32), int(fwd_f32)]
 
 
 @pytest.mark.cuda
@@ -2591,12 +2614,11 @@ def test_wide_route_model_gradients_on_card(cuda_device, monkeypatch):
     assert lstm_cuda.layer_route([128], 128, torch.float32) == "wide"
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
                 lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
-                lstm_cuda.bilstm_fwd_wide_train)
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, embedding_size=128)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 2, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 2, 0, 2, 0]
     want = model_grads(torch.device("cpu"), embedding_size=128)
     for name, grad in got.items():
         ref = want[name]
@@ -2637,27 +2659,24 @@ def test_fwd_wide_mma_matches_plain_at_the_scaled_shape_on_card(cuda_device, E_p
     weight groups, a stacked layer with 1), ragged lengths: the dispatch
     takes the tensor-core forward in both variants, which agrees with the
     plain recurrence within 3e-2 x max(1, max|ref|) and gives the same hs
-    bits in both; the CUDA-core kernel by name agrees too."""
+    bits in both; the retired CUDA-core kernel's name is refused."""
     cd, H, T, B = torch.bfloat16, 256, 1500, 400
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device)
     xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
     del parts
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
     del got, ev
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
-           want, 3e-2)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1] + 1
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
 
 
 @pytest.mark.cuda
@@ -2758,13 +2777,13 @@ def test_bf16_wide_route_model_gradients_take_the_tensor_core_forward_on_card(cu
     wgrad; its gradients equal the CPU plain path's within 2^-7 x max(1,
     max|grad|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    wrappers = (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma,
+    wrappers = (lstm_cuda.bilstm_fwd_wide_train_mma,
                 lstm_cuda.bilstm_gates_mma, lstm_cuda.bilstm_bwd_lite_mma,
                 lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=torch.bfloat16, embedding_size=128)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 2, 4, 2, 2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 4, 2, 2, 0]
     want = model_grads(torch.device("cpu"), dtype=torch.bfloat16, embedding_size=128)
     for name, grad in got.items():
         ref = want[name]
@@ -3693,14 +3712,14 @@ def test_two_layer_model_at_embedding_80_on_card(cuda_device, dtype):
                 lstm_cuda.bilstm_bwd_lite_f32_resident,
                 lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd_train_f32,
                 lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_lite_mma_resident,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_mma_resident,
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident,
                 lstm_cuda.bilstm_fwd_wide_train_f32_resident)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=80)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
         int(f32), int(not f32), 0, int(f32), 0, int(f32), int(not f32), int(not f32),
-        0, int(not f32), int(f32)]
+        int(not f32), int(f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=80)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -3759,18 +3778,14 @@ def test_wide_kernels_at_288_match_plain_on_card(cuda_device, dtype, T):
         "bilstm_bwd_lite_f32" if f32 else "bilstm_bwd_lite_mma")
     xg = input_gates(parts, w_ih, bias, dtype)
     want = bidir_recurrence(xg, lengths, w_hh, dtype, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
-    before = [f.launches for f in wrappers]
     for fwd in (lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide):
-        with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256"):
+        with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
             fwd(xg, lengths, w_hh, dtype, kernel="bilstm_fwd_wide")
     hs_f, hs_b, _, _, cs_f, cs_b = want
     args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, tuple(dy[:2]), tuple(dy[2:]), dhn, dcn,
             dtype)
     with pytest.raises(ValueError, match="no lite sweep kernel named .bilstm_bwd_lite."):
         lstm_cuda.bilstm_bwd_lite(*args, kernel="bilstm_bwd_lite")
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0]
     _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, dtype), want, tol)
     _close([lstm_cuda.bilstm_bwd_lite(*args)], [bidir_layer_sweep_lite(*args)], tol)
 
@@ -4150,7 +4165,7 @@ def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, 
     1, groups of 12, 9 and 70 rows (short tiles), lengths of 0, 1 and T.
     (At 400 rows in 5 groups the 32-row tile is the plan's.)
     The dispatch names it, the eval and train variants give the same hs
-    bits, and the CUDA-core forward asked for by name refuses bf16 at 288."""
+    bits, and the retired CUDA-core forward's name is refused."""
     monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_UNEVEN_ROWS", (rows,))
     H, cd = 288, torch.bfloat16
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma"
@@ -4158,19 +4173,17 @@ def test_fwd_wide_mma_at_288_matches_plain_on_card(cuda_device, monkeypatch, G, 
                                                            seed=B + T + rows)
     xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256"):
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
-    assert lstm_cuda.bilstm_fwd_wide_train.launches == before[1]
 
 
 @pytest.mark.cuda
@@ -4183,13 +4196,12 @@ def test_fwd_wide_mma_at_288_takes_the_model_layers_on_card(cuda_device, E_parts
     H, cd, T, B = 272, torch.bfloat16, 300, 400
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
                                                            seed=G + 1)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
     ev = lstm_cuda.layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1]
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
@@ -4203,12 +4215,12 @@ def test_two_layer_model_at_embedding_272_on_card(cuda_device, dtype):
     instance for uneven groups (never the 288-thread CUDA-core one) and its
     sweeps the tensor-core lite sweep's; its gradients equal the CPU plain
     path's within 2^-7 x max(1, max|grad|)."""
-    wrappers = (lstm_cuda.bilstm_fwd_wide_train_mma, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_wgrad_ih)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_train_mma, lstm_cuda.bilstm_bwd_lite_mma,
+                lstm_cuda.bilstm_wgrad_ih)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=272)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 2, 2]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 2]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=272)
     for name, grad in got.items():
         ref = want[name].float()
@@ -4222,8 +4234,8 @@ def test_sweep_mma_at_80_and_fwd_wide_mma_at_288_reject_bad_operands_on_card(cud
     fall back: the sweep at E = 48, H = 80 and in f32 at E = H = 80, a
     wrong-typed weight; the forward at 288 in f32, at 320, and a wrong-typed
     or wrong-shaped operand."""
-    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
+    wrappers = (lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_fwd_wide_mma,
+                lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     for E_parts, dtype, match in (([48], torch.bfloat16, "bilstm_bwd_mma kernel takes bfloat16"),
                                   ([80], torch.float32, "bilstm_bwd_mma kernel takes bfloat16")):
@@ -4573,8 +4585,7 @@ def test_fwd_wide_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_f32"
     xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
@@ -4591,10 +4602,10 @@ def test_fwd_wide_f32_matches_plain_on_card(cuda_device, monkeypatch, H, G, B, T
         _close(e, want[:4], 1e-4)
         assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
     n = len(rows)
-    with pytest.raises(ValueError, match="and f32 outside"):
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1 + n, 1 + n, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1 + n, 1 + n]
 
 
 @pytest.mark.cuda
@@ -4645,13 +4656,12 @@ def test_two_layer_model_at_embedding_272_f32_on_card(cuda_device):
     max|grad|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_gates_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma,
-                lstm_cuda.bilstm_fwd_wide_train)
+                lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_gates_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=torch.float32, embedding_size=272)
     torch.cuda.synchronize()
     ran = [f.launches - b for f, b in zip(wrappers, before)]
-    assert min(ran[:3]) > 0 and ran[3:] == [0, 0], ran
+    assert min(ran[:3]) > 0 and ran[3:] == [0], ran
     want = model_grads(torch.device("cpu"), dtype=torch.float32, embedding_size=272)
     for name, grad in got.items():
         ref = want[name].float()
@@ -4968,12 +4978,11 @@ def test_two_layer_model_at_embedding_72_on_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_mma,
                 lstm_cuda.bilstm_bwd_lite_mma_resident, lstm_cuda.bilstm_layer_fwd_train,
-                lstm_cuda.bilstm_bwd,
-                lstm_cuda.bilstm_fwd_wide_train_mma_resident, lstm_cuda.bilstm_fwd_wide_train)
+                lstm_cuda.bilstm_bwd, lstm_cuda.bilstm_fwd_wide_train_mma_resident)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=72)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 1, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1, 0, 0, 1]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=72)
     for name, grad in got.items():
         ref = want[name].float()
@@ -5098,8 +5107,8 @@ def test_fwd_wide_mma_resident_matches_plain_on_card(cuda_device, T, G, B):
     each group), groups at lengths 0, 1 and T, rows of length 0, 1 and T
     and rows 8-15 short of T (a tile that stops at its longest row). The
     dispatch names it and its wrappers count the launches; both variants
-    give the same hs bits; ``bilstm_fwd_wide.cu`` asked for by name refuses
-    bf16 at 96 (retired after it lost in turns)."""
+    give the same hs bits; ``bilstm_fwd_wide.cu``'s name is refused (the
+    source is retired)."""
     cd, H = torch.bfloat16, 96
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                            seed=T + B + 96)
@@ -5109,8 +5118,7 @@ def test_fwd_wide_mma_resident_matches_plain_on_card(cuda_device, T, G, B):
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma_resident"
     wrappers = (lstm_cuda.bilstm_fwd_wide_mma_resident,
-                lstm_cuda.bilstm_fwd_wide_train_mma_resident, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train)
+                lstm_cuda.bilstm_fwd_wide_train_mma_resident)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
@@ -5120,10 +5128,10 @@ def test_fwd_wide_mma_resident_matches_plain_on_card(cuda_device, T, G, B):
     _close(lstm_cuda.bilstm_fwd_wide_train_mma_resident(xg, lengths, w_hh, cd), want, 3e-2)
     _close(lstm_cuda.bilstm_fwd_wide_mma_resident(xg, lengths, w_hh, cd), want[:4], 3e-2)
     torch.cuda.synchronize()
-    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2]
 
 
 @pytest.mark.cuda
@@ -5189,12 +5197,11 @@ def test_two_layer_model_at_embedding_160_on_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     cd = torch.float32
     wrappers = (lstm_cuda.bilstm_bwd_lite_f32, lstm_cuda.bilstm_wgrad_f32,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_wgrad_ih)
+                lstm_cuda.bilstm_fwd_wide_train_f32, lstm_cuda.bilstm_wgrad_ih)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=160)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 2, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 2, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=160)
     for name, grad in got.items():
         ref = want[name].float()
@@ -5268,19 +5275,19 @@ def test_lite_mma_at_160_to_224_wrapper_takes_plain_version_on_cpu(H):
 @pytest.mark.parametrize("H", [160, 192, 224])
 def test_fwd_wide_f32_at_160_to_224_wrappers_take_plain_versions_on_cpu(H):
     """On the CPU the f32 tensor-core wide forward at 160-224 (both
-    variants), the dispatch and ``bilstm_fwd_wide.cu`` asked for by name run
-    the plain twin bit for bit and launch nothing; the wrappers refuse bf16
+    variants), the dispatch and the dispatch asked for it by name run the
+    plain twin bit for bit and launch nothing; the wrappers refuse bf16
     and, under grad mode, an operand that requires grad."""
     cpu, cd = torch.device("cpu"), torch.float32
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 6, [16], H, 3, cd, cpu, seed=H)
     xg = input_gates(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     for got in (lstm_cuda.bilstm_fwd_wide_train_f32(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                kernel="bilstm_fwd_wide_f32")):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_fwd_wide_f32(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
@@ -5292,59 +5299,46 @@ def test_fwd_wide_f32_at_160_to_224_wrappers_take_plain_versions_on_cpu(H):
         lstm_cuda.bilstm_fwd_wide_train_f32(xg.clone().requires_grad_(), lengths, w_hh, cd)
 
 
-@pytest.mark.parametrize("name,dtype,H,refused", [
-    # csrc/bilstm_bwd_lite.cu is gone: its name is refused at every width
-    # (the ids of the cases that timed it by name are kept)
-    ("bilstm_bwd_lite", torch.float32, 160, True),
-    ("bilstm_bwd_lite", torch.float32, 192, True),
-    ("bilstm_bwd_lite", torch.float32, 224, True),
-    ("bilstm_fwd_wide", torch.bfloat16, 96, True),
-    ("bilstm_bwd_lite", torch.float32, 128, True),
-    ("bilstm_bwd_lite", torch.bfloat16, 288, True),
-    pytest.param("bilstm_bwd_lite", torch.bfloat16, 160, True,
-                 id="bilstm_bwd_lite-dtype6-160-False"),
-    pytest.param("bilstm_bwd_lite", torch.bfloat16, 224, True,
-                 id="bilstm_bwd_lite-dtype7-224-False"),
-    pytest.param("bilstm_bwd_lite", torch.bfloat16, 256, True,
-                 id="bilstm_bwd_lite-dtype8-256-False"),
-    # retired after the tensor-core forwards beat it in turns: f32 and bf16
-    # at 160-224 (ids kept)
-    pytest.param("bilstm_fwd_wide", torch.float32, 160, True,
-                 id="bilstm_fwd_wide-dtype9-160-False"),
-    pytest.param("bilstm_fwd_wide", torch.float32, 224, True,
-                 id="bilstm_fwd_wide-dtype10-224-False"),
-    ("bilstm_fwd_wide", torch.float32, 96, False),
-    pytest.param("bilstm_fwd_wide", torch.bfloat16, 192, True,
-                 id="bilstm_fwd_wide-dtype12-192-False"),
-    # kept by name, to time beside the kernels that took them
-    ("bilstm_fwd_wide", torch.bfloat16, 128, False),
-    ("bilstm_fwd_wide", torch.bfloat16, 256, False),
-    ("bilstm_fwd_wide", torch.float32, 192, True),
-    ("bilstm_fwd_wide", torch.bfloat16, 160, True),
-    ("bilstm_fwd_wide", torch.bfloat16, 224, True),
+@pytest.mark.parametrize("name,dtype,H", [
+    # csrc/bilstm_bwd_lite.cu and csrc/bilstm_fwd_wide.cu are gone: their
+    # names are refused at every width (the ids of the cases that timed or
+    # refused them by name are kept)
+    pytest.param("bilstm_bwd_lite", torch.float32, 160, id="bilstm_bwd_lite-dtype0-160-True"),
+    pytest.param("bilstm_bwd_lite", torch.float32, 192, id="bilstm_bwd_lite-dtype1-192-True"),
+    pytest.param("bilstm_bwd_lite", torch.float32, 224, id="bilstm_bwd_lite-dtype2-224-True"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 96, id="bilstm_fwd_wide-dtype3-96-True"),
+    pytest.param("bilstm_bwd_lite", torch.float32, 128, id="bilstm_bwd_lite-dtype4-128-True"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 288, id="bilstm_bwd_lite-dtype5-288-True"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 160, id="bilstm_bwd_lite-dtype6-160-False"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 224, id="bilstm_bwd_lite-dtype7-224-False"),
+    pytest.param("bilstm_bwd_lite", torch.bfloat16, 256, id="bilstm_bwd_lite-dtype8-256-False"),
+    pytest.param("bilstm_fwd_wide", torch.float32, 160, id="bilstm_fwd_wide-dtype9-160-False"),
+    pytest.param("bilstm_fwd_wide", torch.float32, 224, id="bilstm_fwd_wide-dtype10-224-False"),
+    pytest.param("bilstm_fwd_wide", torch.float32, 96, id="bilstm_fwd_wide-dtype11-96-False"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 192, id="bilstm_fwd_wide-dtype12-192-False"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 128, id="bilstm_fwd_wide-dtype13-128-False"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 256, id="bilstm_fwd_wide-dtype14-256-False"),
+    pytest.param("bilstm_fwd_wide", torch.float32, 192, id="bilstm_fwd_wide-dtype15-192-True"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 160, id="bilstm_fwd_wide-dtype16-160-True"),
+    pytest.param("bilstm_fwd_wide", torch.bfloat16, 224, id="bilstm_fwd_wide-dtype17-224-True"),
 ])
-def test_cuda_core_wide_kernels_by_name(name, dtype, H, refused):
-    """Which widths the CUDA-core wide forward takes when asked for by name
-    (``kernel=``) on the card: the widths where a tensor-core kernel beat it
-    in turns are refused (f32 at 128-256, bf16 at 96 and now at 160-224),
-    the others up to 256 kept for timing; it takes no width past 256. The
-    CUDA-core lite sweep's source is gone: the wrapper refuses its name
-    before it looks at the operands, on the CPU too."""
+def test_cuda_core_wide_kernels_by_name(name, dtype, H):
+    """The CUDA-core lite sweep's and wide forward's sources are gone: no
+    library is bound under their names, and the wrappers refuse them
+    before they look at the operands, on the CPU too."""
+    assert name not in lstm_cuda._SIGNATURES
+    xg = torch.zeros(2, 3, 2, 4 * H, dtype=torch.float32)
+    hs = torch.zeros(3, 2, H, dtype=dtype)
+    lengths = torch.full((2,), 3, dtype=torch.int32)
+    w_hh = torch.zeros(2, 4 * H, H, dtype=dtype)
     if name == "bilstm_bwd_lite":
-        assert name not in lstm_cuda._SIGNATURES and name not in lstm_cuda.CUDA_CORE_WIDE_RETIRED
-        xg = torch.zeros(2, 3, 2, 4 * H, dtype=torch.float32)
-        hs = torch.zeros(3, 2, H, dtype=dtype)
-        lengths = torch.full((2,), 3, dtype=torch.int32)
-        w_hh = torch.zeros(2, 4 * H, H, dtype=dtype)
         with pytest.raises(ValueError, match="no lite sweep kernel named 'bilstm_bwd_lite'"):
             lstm_cuda.bilstm_bwd_lite(xg, lengths, w_hh, hs, hs, hs, hs, (), (), None, None,
                                       dtype, kernel=name)
         return
-    if refused:
-        with pytest.raises(ValueError, match=f"csrc/{name}.cu takes H <= 256, and f32 outside"):
-            lstm_cuda.cuda_core_wide_check(name, H, dtype)
-    else:
-        lstm_cuda.cuda_core_wide_check(name, H, dtype)
+    for fwd in (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train):
+        with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+            fwd(xg, lengths, w_hh, dtype, kernel=name)
 
 
 @pytest.mark.cuda
@@ -5487,15 +5481,14 @@ def test_fwd_wide_f32_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_f32"
     xg = lstm_cuda.bilstm_gates_f32(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
     _close(got, want, 1e-4)
     _close(ev, want[:4], 1e-4)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     rows = lstm_cuda.fwd_wide_f32_rows(H)
     assert rows == (16, 32)
@@ -5507,7 +5500,7 @@ def test_fwd_wide_f32_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
         _close(e, want[:4], 1e-4)
         assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 3, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 3]
 
 
 @pytest.mark.cuda
@@ -5537,13 +5530,12 @@ def test_fwd_wide_f32_at_160_at_the_main_path_shape_on_card(cuda_device):
 def test_fwd_wide_f32_at_160_rejects_bad_operands_on_card(cuda_device):
     """The f32 tensor-core forward refuses what its kernel does not take at
     160, before any launch: bf16 operands, a weight of the wrong shape;
-    ``bilstm_fwd_wide.cu`` by name refuses f32 at 128 and bf16 at 96
-    (retired); an empty batch launches nothing."""
+    ``bilstm_fwd_wide.cu``'s name is refused at f32 128 and bf16 96 (the
+    source is retired); an empty batch launches nothing."""
     cd, H = torch.float32, 160
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [H], H, 2, cd, cuda_device)
     xg = input_gates(parts, w_ih, bias, cd)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32, lstm_cuda.bilstm_fwd_wide_train_f32)
     before = [f.launches for f in wrappers]
     for fwd in wrappers[:2]:
         with pytest.raises(ValueError, match="bilstm_fwd_wide_f32 kernel takes float32"):
@@ -5555,7 +5547,7 @@ def test_fwd_wide_f32_at_160_rejects_bad_operands_on_card(cuda_device):
     for dtype, width in ((torch.float32, 128), (torch.bfloat16, 96)):
         case = layer_case(4, 10, [width], width, 1, dtype, cuda_device)
         xw = input_gates(case[0], case[2], case[4], dtype)
-        with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+        with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
             lstm_cuda.bilstm_fwd_wide_train(xw, case[1], case[3], dtype, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == before
@@ -5571,12 +5563,11 @@ def test_two_layer_bf16_model_at_embedding_160_on_card(cuda_device):
     CPU plain path's within 2^-7 x max(1, max|grad|)."""
     cd = torch.bfloat16
     wrappers = (lstm_cuda.bilstm_bwd_lite_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
-                lstm_cuda.bilstm_fwd_wide_train, lstm_cuda.bilstm_wgrad_ih,
-                lstm_cuda.bilstm_wgrad_mma)
+                lstm_cuda.bilstm_wgrad_ih, lstm_cuda.bilstm_wgrad_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=cd, embedding_size=160)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 0, 2, 2]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 2, 2]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=160)
     for name, grad in got.items():
         ref = want[name].float()
@@ -5704,8 +5695,8 @@ def test_fwd_wide_mma_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
     groups of 30, 13, 9, 12, 11, 9 and 80 rows (short tiles), groups at
     lengths 0, 1 and T, rows 8-15 short of T, T = 1. The eval and train
     variants give the same hs bits; the dispatch names it and its wrappers
-    count the launches; ``bilstm_fwd_wide.cu`` asked for by name is refused
-    (retired there after it lost in turns)."""
+    count the launches; ``bilstm_fwd_wide.cu``'s name is refused (the source
+    is retired)."""
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                            seed=T + B + H)
@@ -5714,15 +5705,14 @@ def test_fwd_wide_mma_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_mma"
     xg = lstm_cuda.bilstm_gates_mma(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
     _close(got, want, 3e-2)
     _close(ev, want[:4], 3e-2)
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
-    with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
         lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     for R in lstm_cuda.FWD_WIDE_MMA_UNEVEN_ROWS:
         monkeypatch.setattr(lstm_cuda, "FWD_WIDE_MMA_UNEVEN_ROWS", (R,))
@@ -5732,7 +5722,7 @@ def test_fwd_wide_mma_at_160_to_224_matches_plain_on_card(cuda_device, monkeypat
         _close(e, want[:4], 3e-2)
         assert torch.equal(e[0], tr[0]) and torch.equal(e[1], tr[1])
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 4, 0, 0]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 4]
 
 
 @pytest.mark.cuda
@@ -5762,13 +5752,12 @@ def test_fwd_wide_mma_at_160_to_224_at_the_main_path_shape_on_card(cuda_device, 
 def test_fwd_wide_mma_at_160_rejects_bad_operands_on_card(cuda_device):
     """The bf16 tensor-core forward refuses what its kernel does not take at
     160, before any launch: f32 operands, a weight of the wrong shape;
-    ``bilstm_fwd_wide.cu`` by name refuses bf16 at 160-224 (retired); an
-    empty batch launches nothing."""
+    ``bilstm_fwd_wide.cu``'s name is refused at 160-224 (the source is
+    retired); an empty batch launches nothing."""
     cd, H = torch.bfloat16, 160
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [H], H, 2, cd, cuda_device)
     xg = input_gates(parts, w_ih, bias, cd)
-    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma,
-                lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train)
+    wrappers = (lstm_cuda.bilstm_fwd_wide_mma, lstm_cuda.bilstm_fwd_wide_train_mma)
     before = [f.launches for f in wrappers]
     for fwd in wrappers[:2]:
         with pytest.raises(ValueError, match="bilstm_fwd_wide_mma kernel takes bfloat16"):
@@ -5780,7 +5769,7 @@ def test_fwd_wide_mma_at_160_rejects_bad_operands_on_card(cuda_device):
     for width in (160, 192, 224):
         case = layer_case(4, 10, [width], width, 1, cd, cuda_device)
         xw = input_gates(case[0], case[2], case[4], cd)
-        with pytest.raises(ValueError, match="bilstm_fwd_wide.cu takes H <= 256, and f32 outside"):
+        with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
             lstm_cuda.bilstm_fwd_wide(xw, case[1], case[3], cd, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == before
@@ -5863,8 +5852,8 @@ def test_fwd_wide_f32_resident_plan_and_dispatch():
     shared memory for two f32 h tiles (8 rows of 96 + 16) and five ring
     stages of the f32 xg tile (8 rows of 388): 7,168 + 62,080 = 69,248
     bytes; 100 blocks at 400 rows in one group. No layer changes route or
-    padded shape; the CUDA-core forward keeps 32 and 64 (where no layer
-    runs wide) and f32 at 96 by name."""
+    padded shape; at 32 and 64 (where no layer runs wide) no wide forward
+    is left since the CUDA-core one was retired."""
     f32, bf16 = torch.float32, torch.bfloat16
     threads, smem = lstm_cuda.fwd_wide_f32_resident_plan(96, f32)
     assert threads == 384 == 4 * 96 and 2 * 12 * 4 == 96
@@ -5874,8 +5863,8 @@ def test_fwd_wide_f32_resident_plan_and_dispatch():
     assert lstm_cuda.wide_fwd_kernel(96, f32) == "bilstm_fwd_wide_f32_resident"
     assert lstm_cuda.wide_fwd_kernel(96, bf16) == "bilstm_fwd_wide_mma_resident"
     for H in (32, 64):
-        assert lstm_cuda.wide_fwd_kernel(H, f32) == "bilstm_fwd_wide"
-    lstm_cuda.cuda_core_wide_check("bilstm_fwd_wide", 96, f32)  # by name it still runs
+        with pytest.raises(ValueError, match=f"no wide forward kernel takes H={H}"):
+            lstm_cuda.wide_fwd_kernel(H, f32)
     for H, dtype in ((96, bf16), (128, f32), (160, f32), (64, f32), (80, f32)):
         with pytest.raises(ValueError, match="bilstm_fwd_wide_f32_resident kernel takes float32"):
             lstm_cuda.fwd_wide_f32_resident_plan(H, dtype)
@@ -5886,26 +5875,29 @@ def test_fwd_wide_f32_resident_plan_and_dispatch():
 @pytest.mark.parametrize("G", [1, 3])
 def test_fwd_wide_f32_resident_wrappers_take_plain_versions_on_cpu(G):
     """On the CPU the one-block f32 wide forward (both variants), the
-    dispatch and the cluster kernel asked for by name run the plain twin
-    bit for bit and launch nothing; under grad mode the wrappers refuse an
-    operand that requires grad."""
+    dispatch and the dispatch asked for it by name run the plain twin bit
+    for bit and launch nothing; the retired cluster kernel's name is
+    refused; under grad mode the wrappers refuse an operand that requires
+    grad."""
     cpu, cd, H = torch.device("cpu"), torch.float32, 96
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 9, [32, 32], H, G, cd, cpu)
     xg = input_gates(parts, w_ih, bias, cd)
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
-    wrappers = (lstm_cuda.bilstm_fwd_wide, lstm_cuda.bilstm_fwd_wide_train,
-                lstm_cuda.bilstm_fwd_wide_f32_resident,
+    wrappers = (lstm_cuda.bilstm_fwd_wide_f32_resident,
                 lstm_cuda.bilstm_fwd_wide_train_f32_resident)
     before = [f.launches for f in wrappers]
     for got in (lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd),
-                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")):
+                lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd,
+                                                kernel="bilstm_fwd_wide_f32_resident")):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_fwd_wide_f32_resident(xg, lengths, w_hh, cd),
                 lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
-    for fwd in wrappers[2:]:
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+        lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
+    for fwd in wrappers:
         with pytest.raises(RuntimeError, match="no autograd graph"):
             fwd(xg.clone().requires_grad_(), lengths, w_hh, cd)
         with torch.no_grad():
@@ -6088,8 +6080,8 @@ def test_fwd_wide_f32_resident_matches_plain_on_card(cuda_device, T, G, B):
     (short tiles inside each group), groups at lengths 0, 1 and T, rows of
     length 0, 1 and T and rows 8-15 short of T (a tile that stops at its
     longest row). The dispatch names it and its wrappers count the
-    launches; both variants give the same hs bits; ``bilstm_fwd_wide.cu``
-    asked for by name still runs f32 at 96 and agrees too."""
+    launches; both variants give the same hs bits; ``bilstm_fwd_wide.cu``'s
+    name is refused (the source is retired)."""
     cd, H = torch.float32, 96
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [H], H, G, cd, cuda_device,
                                                            seed=T + B + 97)
@@ -6099,8 +6091,7 @@ def test_fwd_wide_f32_resident_matches_plain_on_card(cuda_device, T, G, B):
     want = bidir_recurrence(xg, lengths, w_hh, cd, with_states=True)
     assert lstm_cuda.wide_fwd_kernel(H, cd) == "bilstm_fwd_wide_f32_resident"
     wrappers = (lstm_cuda.bilstm_fwd_wide_f32_resident,
-                lstm_cuda.bilstm_fwd_wide_train_f32_resident, lstm_cuda.bilstm_fwd_wide,
-                lstm_cuda.bilstm_fwd_wide_train)
+                lstm_cuda.bilstm_fwd_wide_train_f32_resident)
     before = [f.launches for f in wrappers]
     got = lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd)
     ev = lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd)
@@ -6110,12 +6101,10 @@ def test_fwd_wide_f32_resident_matches_plain_on_card(cuda_device, T, G, B):
     assert all(torch.equal(a, b) for a, b in zip(
         lstm_cuda.bilstm_fwd_wide_train_f32_resident(xg, lengths, w_hh, cd), got))
     _close(lstm_cuda.bilstm_fwd_wide_f32_resident(xg, lengths, w_hh, cd), want[:4], 1e-4)
-    _close(lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"),
-           want, 1e-4)
-    _close(lstm_cuda.bilstm_fwd_wide(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide"), want[:4],
-           1e-4)
+    with pytest.raises(ValueError, match="no wide forward kernel named 'bilstm_fwd_wide'"):
+        lstm_cuda.bilstm_fwd_wide_train(xg, lengths, w_hh, cd, kernel="bilstm_fwd_wide")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2]
 
 
 @pytest.mark.cuda
@@ -6177,9 +6166,10 @@ def test_fwd_wide_f32_resident_edges_on_card(cuda_device):
 def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dtype):
     """The two-layer model at embedding 128 on the recurrence backend: both
     layers run the op at 128; in f32 its sweep is the tensor-core
-    ``lstm_recurrence_bwd_mid_f32.cu`` (never the cluster sweep), in bf16 the
-    cluster sweep (never the f32 one); its forward the cluster forward in
-    both. Its gradients equal the CPU plain path's (1e-4 x max(1,
+    ``lstm_recurrence_bwd_mid_f32.cu`` and its forward the cluster forward,
+    in bf16 its forward and sweep are the tensor-core
+    ``lstm_recurrence_{fwd,bwd}_mid_mma.cu``; the cluster sweep runs in
+    neither. Its gradients equal the CPU plain path's (1e-4 x max(1,
     max|grad|) in f32, 2^-7 in bf16)."""
     from intrepppid_tpu_torch.ops import lstm
 
@@ -6187,14 +6177,256 @@ def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dty
     monkeypatch.setattr(lstm, "DEFAULT_BACKEND", "recurrence")
     f32 = dtype == torch.float32
     wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd_mid_f32,
-                lstm_cuda.lstm_recurrence_bwd)
+                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_fwd_mid_mma,
+                lstm_cuda.lstm_recurrence_bwd_mid_mma)
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=128)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 2 * f32, 2 * (not f32)]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        2 * f32, 2 * f32, 0, 2 * (not f32), 2 * (not f32)]
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=128)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= tol * max(
             1.0, float(ref.abs().max())), name
+
+
+# ---------------- the op's bf16 tensor-core sweep and forward at 96-288
+@pytest.mark.parametrize("kind,H,rows,cluster,want", [
+    ("bwd", 96, 32, 4, 3 * 96 * 64 + 32 * 96 * 4 + 32 * 104 * 2 + 32 * 104 * 2 + 96 * 40 * 4),
+    ("bwd", 128, 16, 4, 4 * 128 * 64 + 16 * 128 * 4 + 16 * 136 * 2 + 16 * 136 * 2 + 128 * 24 * 4),
+    ("bwd", 128, 32, 8, 2 * 128 * 64 + 32 * 128 * 4 + 32 * 136 * 2 + 32 * 72 * 2 + 128 * 40 * 4),
+    ("bwd", 224, 32, 4, 7 * 224 * 64 + 32 * 224 * 4 + 32 * 232 * 2 + 32 * 232 * 2 + 224 * 40 * 4),
+    ("bwd", 256, 16, 4, 8 * 256 * 64 + 16 * 256 * 4 + 16 * 264 * 2 + 16 * 264 * 2 + 256 * 24 * 4),
+    ("bwd", 256, 32, 8, 4 * 256 * 64 + 32 * 256 * 4 + 32 * 264 * 2 + 32 * 136 * 2 + 256 * 40 * 4),
+    ("bwd", 288, 32, 8, 5 * 288 * 64 + 32 * 288 * 4 + 32 * 296 * 2 + 32 * 168 * 2 + 288 * 40 * 4),
+    ("fwd", 96, 32, 4, 3 * 96 * 64 + 2 * 32 * 104 * 2 + 32 * 32 * 2 + 5 * (32 * 100 * 4 + 48)),
+    ("fwd", 128, 16, 4, 4 * 128 * 64 + 2 * 16 * 136 * 2 + 16 * 40 * 2 + 5 * (16 * 132 * 4 + 48)),
+    ("fwd", 192, 32, 4, 6 * 192 * 64 + 2 * 32 * 200 * 2 + 32 * 56 * 2 + 5 * (32 * 196 * 4 + 48)),
+    ("fwd", 256, 16, 4, 8 * 256 * 64 + 2 * 16 * 264 * 2 + 16 * 72 * 2 + 4 * (16 * 260 * 4 + 48)),
+    ("fwd", 288, 16, 8, 5 * 288 * 64 + 2 * 16 * 296 * 2 + 16 * 48 * 2 + 5 * (16 * 164 * 4 + 48))])
+def test_recurrence_mid_mma_smem_and_plan(kind, H, rows, cluster, want):
+    """The op's bf16 sweep and forward at 96-288
+    (csrc/lstm_recurrence_{bwd,fwd}_mid_mma.cu:smem_bytes): first the
+    block's share of the bf16 fragment copy, 64 bytes a unit group and
+    input for the most groups a block owns (ceil(H / 8 / cluster)); the
+    sweep's f32 h_prev tile, its bf16 rounding (rows of H + 8), the bf16
+    dgates tile (32 columns a group + 8) and the f32 partial dh (H rows of 8
+    mod 16 floats); the forward's two bf16 h tiles, its staged new h (8
+    columns a group + 8) and its cp.async ring of f32 xg rows (4 gates x 8
+    units a group + 4) and 48 mask bytes, 5 stages, 4 where a block owns 8
+    groups (256 in 4-block clusters). At the train shape (400 rows in 5
+    groups, D = 2) on a card that holds 30 4-block clusters or 15 8-block
+    ones, the plan takes the table's cluster size and the row tile of the
+    fewest waves, then the smallest; combinations without an instance are
+    refused."""
+    assert lstm_cuda.recurrence_mid_mma_smem(kind, H, rows, cluster) == want
+    assert want <= lstm_cuda.SMEM_LIMIT
+    table = lstm_cuda.REC_MID_MMA_CLUSTER[kind]
+    cl = table.get(H, 8)
+    plan = lstm_cuda.recurrence_mid_mma_plan(kind, 400, 5, H, lambda c, R, smem: {4: 30, 8: 15}[c])
+    fits = [R for R in lstm_cuda.REC_MID_MMA_ROWS
+            if lstm_cuda.recurrence_mid_mma_smem(kind, H, R, cl) <= lstm_cuda.SMEM_LIMIT]
+    waves = {R: -(-2 * lstm_cuda.mma_tiles(400, 5, R) // {4: 30, 8: 15}[cl]) for R in fits}
+    best = min(R for R in fits if waves[R] == min(waves.values()))
+    assert plan == (cl, best, lstm_cuda.mma_tiles(400, 5, best),
+                    lstm_cuda.recurrence_mid_mma_smem(kind, H, best, cl))
+    for bad in ((kind, H, 48, cluster), (kind, H, rows, 2), ("lite", H, rows, cluster)):
+        with pytest.raises(ValueError, match="no instance"):
+            lstm_cuda.recurrence_mid_mma_smem(*bad)
+    with pytest.raises(ValueError, match="no instance"):
+        lstm_cuda.recurrence_mid_mma_smem(kind, 288, 16, 4)  # 9 groups outnumber 8 warps
+    for h, dtype in ((64, torch.bfloat16), (320, torch.bfloat16), (128, torch.float32),
+                     (100, torch.bfloat16)):
+        with pytest.raises(ValueError, match="lstm_recurrence_fwd_mid_mma take compute dtype"):
+            lstm_cuda.recurrence_mid_mma_check(h, dtype)
+
+
+@pytest.mark.parametrize("H", [96, 160, 288])
+def test_recurrence_mid_mma_wrappers_take_plain_version_on_cpu(H):
+    """On the CPU the op's bf16 sweep and forward at 96-288, the dispatch
+    and the cluster kernels asked for by name run the plain twins bit for
+    bit and launch nothing, with the bf16 fragment copy handed in or not;
+    under grad mode an operand that requires grad is refused."""
+    T, D, B, G, cd = 4, 2, 6, 2, torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
+                                                  "holes", seed=H)
+    want_fwd = recurrence_fwd(xg, valid, w, G, cd)
+    hs, cs = want_fwd[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    want = recurrence_sweep(*args)
+    wrappers = (lstm_cuda.lstm_recurrence_bwd_mid_mma, lstm_cuda.lstm_recurrence_fwd_mid_mma,
+                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    wf = lstm_cuda.recurrence_mma_weights(w)
+    for got in (lstm_cuda.lstm_recurrence_bwd_mid_mma(*args),
+                lstm_cuda.lstm_recurrence_bwd_mid_mma(*args, wf=wf),
+                lstm_cuda.lstm_recurrence_bwd(*args, wf=wf),
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_mma"),
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")):
+        assert torch.equal(got, want)
+    for got in (lstm_cuda.lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd),
+                lstm_cuda.lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd, wf=wf),
+                lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf),
+                lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd,
+                                              kernel="lstm_recurrence_fwd_mid_mma"),
+                lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")):
+        assert all(torch.equal(a, b) for a, b in zip(got, want_fwd))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_bwd_mid_mma(xg, valid, w.clone().requires_grad_(), *args[3:])
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_fwd_mid_mma(xg.clone().requires_grad_(), valid, w, G, cd)
+
+
+@pytest.mark.parametrize("H,dtype,copy", [
+    (64, torch.bfloat16, None), (96, torch.bfloat16, "bf16"), (288, torch.bfloat16, "bf16"),
+    (320, torch.bfloat16, "bf16"), (96, torch.float32, None), (288, torch.float32, None),
+    (320, torch.float32, "f32")])
+def test_recurrence_fragments_by_width_and_dtype(H, dtype, copy):
+    """The fragment copy ``FusedLSTMRecurrence`` builds once in the forward
+    and saves for the backward: the bf16 one wherever the bf16 forward runs
+    on a cluster kernel (96 and past), the f32 one past 288 in f32, none at
+    the widths whose kernels read ``w`` itself; bit for bit the copy the
+    kernels' wrappers would build."""
+    w = (torch.rand(2, 1, H, 4 * H, generator=torch.Generator().manual_seed(H)) - 0.5).to(dtype)
+    got = lstm_cuda.recurrence_fragments(w, dtype)
+    if copy is None:
+        assert got is None
+        return
+    want = (lstm_cuda.recurrence_mma_weights(w) if copy == "bf16"
+            else lstm_cuda.recurrence_f32_weights(w))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(lstm_cuda._mma_copy(w, got) if copy == "bf16"
+                       else lstm_cuda._f32_copy(w, got), want)
+
+
+def _mid_mma_instances():
+    """(H, blocks a cluster, row tile) of every instance of the op's bf16
+    sweep or forward at 96-288 whose shared memory fits."""
+    return [(H, c, rows) for c, widths in lstm_cuda.REC_MID_MMA_INSTANCES.items()
+            for H in widths for rows in lstm_cuda.REC_MID_MMA_ROWS
+            if min(lstm_cuda.recurrence_mid_mma_smem(k, H, rows, c) for k in ("bwd", "fwd"))
+            <= lstm_cuda.SMEM_LIMIT]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,D,mask", [(1, 30, 300, 2, "lengths"), (5, 40, 300, 2, "holes"),
+                                          (5, 65, 1, 2, "lengths"), (3, 27, 7, 1, "holes")])
+@pytest.mark.parametrize("H,cluster,rows", _mid_mma_instances())
+def test_recurrence_mid_mma_matches_plain_on_card(cuda_device, monkeypatch, H, cluster, rows,
+                                                  G, B, T, D, mask):
+    """Every instance of the op's bf16 sweep and forward at 96-288 (blocks a
+    cluster, row tile; pinned with monkeypatch on the plan's tables; each
+    kernel where its shared memory fits) against its plain twin at 3e-2 x
+    max(1, max|ref|): masks from lengths and with holes; T = 1, 7 and 300;
+    D = 1 and 2; groups of 30, 8, 13 and 9 rows, which leave short row
+    tiles; dhs, dhn and dcn None in turn; the bf16 fragment copy handed in
+    or built; the same bits twice. The wrappers count the launches; the
+    cluster kernels never launch."""
+    cd = torch.bfloat16
+    monkeypatch.setattr(lstm_cuda, "REC_MID_MMA_CLUSTER", {"bwd": {H: cluster},
+                                                           "fwd": {H: cluster}})
+    monkeypatch.setattr(lstm_cuda, "REC_MID_MMA_ROWS", (rows,))
+    fits = {k: lstm_cuda.recurrence_mid_mma_smem(k, H, rows, cluster) <= lstm_cuda.SMEM_LIMIT
+            for k in ("bwd", "fwd")}
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mid_mma"
+    assert lstm_cuda.recurrence_sweep_kernel(H, cd) == "lstm_recurrence_bwd_mid_mma"
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, mask,
+                                                  seed=H + T + G + D)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mid_mma, lstm_cuda.lstm_recurrence_bwd_mid_mma,
+                lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd)
+    before = [f.launches for f in wrappers]
+    wf = lstm_cuda.recurrence_mma_weights(w)
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    if fits["fwd"]:
+        got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)
+        again = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _close(got, want, 3e-2)
+    hs, cs = want[:2]
+    args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    if fits["bwd"]:
+        got = lstm_cuda.lstm_recurrence_bwd(*args, wf=wf)
+        assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args), got)
+        _close([got], [recurrence_sweep(*args)], 3e-2)
+        for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
+                     (xg, valid, w, hs, cs, dhs, None, dcn, G, cd)):
+            _close([lstm_cuda.lstm_recurrence_bwd(*part)], [recurrence_sweep(*part)], 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        2 * fits["fwd"], 4 * fits["bwd"], 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,G,mask", [(96, 1, "lengths"), (128, 5, "holes"), (224, 3, "lengths"),
+                                      (256, 5, "holes"), (288, 2, "lengths")])
+def test_recurrence_mid_mma_autograd_on_card(cuda_device, monkeypatch, H, G, mask):
+    """``fused_lstm_recurrence`` in bf16 at 96-288 on the card against the
+    same op on the CPU (the plain twins): values and the gradients of xg
+    and w at 3e-2 x max(1, max|ref|). One step runs each new kernel once and
+    the cluster kernels never, and builds the bf16 fragment copy once, in
+    the forward, for both."""
+    T, D, B, cd = 40, 2, 5 * G, torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), mask,
+                                                  seed=H + G)
+    built = []
+    real = lstm_cuda.recurrence_mma_weights
+    monkeypatch.setattr(lstm_cuda, "recurrence_mma_weights",
+                        lambda w: built.append(w.shape) or real(w))
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mid_mma, lstm_cuda.lstm_recurrence_bwd_mid_mma,
+                lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        x = xg.to(dev).requires_grad_()
+        ww = w.to(dev).requires_grad_()
+        before = [f.launches for f in wrappers]
+        out = fused_lstm_recurrence(x, valid.to(dev), ww, G, cd)
+        loss = (out[0] * dhs.to(dev)).sum() + (out[1] * dhn.to(dev)).sum() \
+            + (out[2] * dcn.to(dev)).sum()
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 0]
+            assert built == [w.shape]
+        grads[dev.type] = [t.detach().float().cpu() for t in (*out, x.grad, ww.grad)]
+    _close(grads["cuda"], grads["cpu"], 3e-2)
+
+
+@pytest.mark.cuda
+def test_recurrence_mid_mma_refuses_on_card(cuda_device, monkeypatch):
+    """The op's bf16 sweep and forward at 96-288 asked for by name refuse
+    f32, the widths they do not take, a wrong fragment copy and a plan with
+    no instance, before any launch; a batch of no row launches nothing."""
+    cd = torch.bfloat16
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(4, 2, 10, 128, 2, cd, cuda_device, "holes")
+    hs, cs = recurrence_fwd(xg, valid, w, 2, cd)[:2]
+    bwd, fwd = lstm_cuda.lstm_recurrence_bwd_mid_mma, lstm_cuda.lstm_recurrence_fwd_mid_mma
+    before = [bwd.launches, fwd.launches]
+    with pytest.raises(ValueError, match="take compute dtype bfloat16"):
+        bwd(xg, valid, w.float(), hs, cs, dhs, dhn, dcn, 2, torch.float32)
+    with pytest.raises(ValueError, match="take compute dtype bfloat16"):
+        fwd(xg, valid, w.float(), 2, torch.float32)
+    small = recurrence_case(4, 2, 10, 64, 2, cd, cuda_device, "holes")
+    hsm, csm = recurrence_fwd(small[0], small[1], small[2], 2, cd)[:2]
+    with pytest.raises(ValueError, match="take compute dtype bfloat16"):
+        bwd(small[0], small[1], small[2], hsm, csm, None, None, None, 2, cd)
+    with pytest.raises(ValueError, match="take compute dtype bfloat16"):
+        fwd(small[0], small[1], small[2], 2, cd)
+    bad = torch.zeros(3, dtype=cd, device=cuda_device)
+    with pytest.raises(ValueError, match="wf must be a contiguous"):
+        bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd, wf=bad)
+    with pytest.raises(ValueError, match="wf must be a contiguous"):
+        fwd(xg, valid, w, 2, cd, wf=lstm_cuda.recurrence_mma_weights(w).float())
+    cut = lambda t: t[:, :, :0].contiguous()  # noqa: E731
+    assert bwd(cut(xg), cut(valid), w, cut(hs), cut(cs), None, None, None, 2, cd).shape == \
+        (4, 2, 0, 512)
+    assert fwd(cut(xg), cut(valid), w, 2, cd)[0].shape == (4, 2, 0, 128)
+    for kind in ("bwd", "fwd"):
+        monkeypatch.setattr(lstm_cuda, "REC_MID_MMA_CLUSTER", {"bwd": {128: 2}, "fwd": {128: 2}})
+        with pytest.raises(ValueError, match="no instance"):
+            (bwd(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, cd) if kind == "bwd"
+             else fwd(xg, valid, w, 2, cd))
+    torch.cuda.synchronize()
+    assert [bwd.launches, fwd.launches] == before

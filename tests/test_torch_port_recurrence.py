@@ -153,6 +153,41 @@ def test_fused_recurrence_matches_jax_f32_mid_widths(H, mask):
     assert torch.all(txg.grad[torch.from_numpy(~valid)] == 0)
 
 
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("H", [128, 224])
+def test_fused_recurrence_matches_jax_bf16_mid_widths(H, mask):
+    """The op in bf16 at H = 128 and 224 (on the card the tensor-core sweep
+    and forward of 96-288, lstm_recurrence_{bwd,fwd}_mid_mma.cu, with 4- and
+    8-block clusters, both reading one bf16 fragment copy of w built in the
+    forward; on the CPU their plain twins) with 5 weight groups against
+    JAX's op in interpret mode: values and gradients at the bf16
+    tolerances above, masks from lengths and with holes."""
+    T, D, B, G = 3, 2, 10, 5
+    jdt, tdt = DTYPES["bfloat16"]
+    xg, valid, w, coef = op_case(H + 7 * len(mask), T, D, B, H, G, mask)
+
+    def jloss(xg, w):
+        out = jax_recurrence(xg, jnp.asarray(valid), w, G, jdt)
+        return sum(jnp.sum(o * c) for o, c in zip(out, coef)), out
+
+    (_, jout), (jdxg, jdw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(xg), jnp.asarray(w).astype(jdt))
+    txg = torch.from_numpy(xg).requires_grad_()
+    tw = torch.from_numpy(w).to(tdt).requires_grad_()
+    out = fused_lstm_recurrence(txg, torch.from_numpy(valid), tw, G, tdt)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, coef)).backward()
+    vt, gt = VALUE_TOL["bfloat16"], GRAD_TOL["bfloat16"]
+    for name, got, want in zip(("hs", "hn", "cn"), out, jout):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=vt, err_msg=name)
+    assert txg.grad.dtype == torch.float32 and tw.grad.dtype == tdt
+    np.testing.assert_allclose(txg.grad.numpy(), np.asarray(jdxg), atol=gt, err_msg="dxg")
+    jdw = np.asarray(jdw.astype(jnp.float32))
+    np.testing.assert_allclose(tw.grad.float().numpy(), jdw,
+                               atol=gt * max(1.0, float(np.abs(jdw).max())), err_msg="dw")
+    assert torch.all(txg.grad[torch.from_numpy(~valid)] == 0)
+
+
 def test_fused_recurrence_one_direction_and_three():
     """The twins take any D >= 1 (the JAX op too): D = 1 and D = 3."""
     for D in (1, 3):

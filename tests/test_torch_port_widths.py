@@ -156,19 +156,24 @@ def _grid_plans(dtype):
 
 
 def _with_cuda_core_sweep(m):
-    """Set back, on the monkeypatch context ``m``, the lite-sweep dispatch
-    of the trees that still had ``csrc/bilstm_bwd_lite.cu``: a width no
-    tensor-core sweep takes, among those ``wide_check`` admits, named that
-    kernel (the plans of a slice set back are those trees' plans)."""
-    real = lstm_cuda.lite_kernel
+    """Set back, on the monkeypatch context ``m``, the lite-sweep and
+    wide-forward dispatch of the trees that still had
+    ``csrc/bilstm_bwd_lite.cu`` and ``csrc/bilstm_fwd_wide.cu``: a width no
+    tensor-core kernel takes, among those ``wide_check`` admits, named that
+    CUDA-core kernel (the plans of a slice set back are those trees'
+    plans)."""
+    real_lite, real_fwd = lstm_cuda.lite_kernel, lstm_cuda.wide_fwd_kernel
 
-    def lite_kernel(H, dtype):
-        try:
-            return real(H, dtype)
-        except ValueError:
-            lstm_cuda.wide_check(H)
-            return "bilstm_bwd_lite"
-    m.setattr(lstm_cuda, "lite_kernel", lite_kernel)
+    def set_back(real, name):
+        def kernel(H, dtype):
+            try:
+                return real(H, dtype)
+            except ValueError:
+                lstm_cuda.wide_check(H)
+                return name
+        return kernel
+    m.setattr(lstm_cuda, "lite_kernel", set_back(real_lite, "bilstm_bwd_lite"))
+    m.setattr(lstm_cuda, "wide_fwd_kernel", set_back(real_fwd, "bilstm_fwd_wide"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
