@@ -144,8 +144,10 @@ exits non-zero with no result):
    ``bilstm_fwd.cu``'s, and 160, whose layers run the f32 tensor-core
    forward and lite sweep in f32, the bf16 tensor-core forward, lite
    sweep and split wgrad in bf16, and of the recurrence backend at
-   embedding 80 (run at 96: in bf16 the tensor-core
-   ``lstm_recurrence_{fwd,bwd}_mid_mma``, never the cluster kernels), each
+   embedding 80 (run at 96: the tensor-core
+   ``lstm_recurrence_{fwd,bwd}_mid_f32`` in f32 and
+   ``lstm_recurrence_{fwd,bwd}_mid_mma`` in bf16, never the cluster
+   forward), each
    with the kernels it must launch (and, where given, must not);
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
@@ -192,35 +194,40 @@ exits non-zero with no result):
    groups, and H = 32 at T = 300; f32 and bf16; masks built from lengths
    (mixing 0, 1, T and random values; a suffix for the reverse direction)
    and a random mask with holes, an all-zero and an all-one row. At H = 64
-   and 32 the sweep is a tensor-core kernel (``lstm_recurrence_bwd_mma`` in
-   bf16, ``lstm_recurrence_bwd_f32`` in f32, three tf32 passes), and in bf16
-   the forward (``lstm_recurrence_fwd_mma``, the same bits twice) and the
-   weight gradient (``lstm_recurrence_wgrad_mma``) are too; the cluster
-   sweep and the CUDA-core wgrad, asked for by name, are held and timed
-   beside them (new, old, old, new; the cluster forward is no longer asked
-   for by name there); ragged cases (27 rows in 3 groups, T = 1, 2
-   and 5, the bf16 forward at D = 1-3); the op at H = 128, 5 groups, the
-   shapes of its main paths (``op_h128``: in f32 the tensor-core sweep
-   ``lstm_recurrence_bwd_mid_f32``, three tf32 passes, both masks, the same
-   bits twice, in turns with the cluster sweep by name; in bf16 the
-   tensor-core sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_mma``,
-   each in turns with its cluster kernel by name); the f32 sweep at each
-   width 96-288 (``mid_f32``: held against its twin at T = 300, then each
-   of its instances, by blocks a cluster, fragments resident or read from
-   L2, and row tile, timed in turns with the dispatch at T = 1500, with
-   registers, spills and the clusters the card holds); the bf16 sweep and
-   forward at each width 96-288 (``mid_mma``: each instance, by blocks a
-   cluster and row tile, held against its twin at T = 300 with masks from
-   lengths and with holes and computed twice (the same bits), then timed
-   in turns with the dispatch at T = 1500). At H = 256 the sweeps are
-   ``lstm_recurrence_bwd_mid_f32`` and ``lstm_recurrence_bwd_mid_mma``
-   too, with the cluster sweep by name beside them. Each is timed
+   and 32 the sweep and the forward are tensor-core kernels
+   (``lstm_recurrence_{bwd,fwd}_mma`` in bf16,
+   ``lstm_recurrence_{bwd,fwd}_f32`` in f32, three tf32 passes; each
+   forward the same bits twice), and in bf16 the weight gradient
+   (``lstm_recurrence_wgrad_mma``) is too; the CUDA-core wgrad and, in
+   f32, the cluster forward, asked for by name, are held and timed beside
+   them (new, old, old, new; the cluster forward is not asked for by name
+   in bf16 there); ragged cases (27 rows in 3 groups, T = 1, 2 and 5, the
+   forwards at D = 1-3); the op at H = 128, 5 groups, the shapes of its
+   main paths (``op_h128``: the tensor-core sweep and forward,
+   ``lstm_recurrence_{bwd,fwd}_mid_f32`` in f32, three tf32 passes, and
+   ``lstm_recurrence_{bwd,fwd}_mid_mma`` in bf16, both masks, the same
+   bits twice, the forward in turns with the cluster forward by name); the
+   f32 sweep and forward at each width 96-288 (``mid_f32``: the sweep held
+   against its twin at T = 300, each instance of the forward, by blocks a
+   cluster, fragments resident or read from L2, and row tile, held against
+   its twin at T = 300 (both masks) and 27 rows, twice; then each
+   instance of either timed in turns with the dispatch at T = 1500, the
+   forward's dispatch in turns with the cluster forward by name, with
+   registers, spills, the clusters the card holds and cuDNN f32 at each
+   width); the bf16 sweep and forward at each width 96-288 (``mid_mma``:
+   each instance, by blocks a cluster and row tile, held against its twin
+   at T = 300 with masks from lengths and with holes and computed twice
+   (the same bits), then timed in turns with the dispatch at T = 1500, the
+   forward's dispatch in turns with the cluster forward by name, cuDNN
+   bf16 at each width). At H = 256 the sweeps and forwards are the
+   tensor-core ones of 96-288 too, the forwards with the cluster forward by
+   name beside them. Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and bf16,
    which also does the input projection; for the weight
    gradient one batched cuBLAS product on the rounded operands and, in
    bf16, the rounding, layout and product together); then the op past 256
-   units (H = 288, in f32 on the cluster forward's 288-thread instance, 512 and
+   units (H = 288 on the tensor-core kernels of 96-288, 512 and
    1024 on the tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma``
    in bf16 and ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32) against its
    twins, the bf16 tensor-core kernels alone at H = 320, 512 and 1024 with
@@ -234,20 +241,22 @@ exits non-zero with no result):
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): ``lstm_recurrence_fwd_mma``,
    ``lstm_recurrence_bwd_mma`` and ``lstm_recurrence_wgrad_mma`` must be
-   > 0, the cluster forward and sweep, the CUDA-core wgrad and the layer
+   > 0, the cluster forward, the CUDA-core wgrad and the layer
    kernels 0; then 2 f32 steps (and a profiled one), whose forward, sweep
-   and wgrad must be the cluster forward, ``lstm_recurrence_bwd_f32`` and
-   the CUDA-core wgrad alone, and 2 steps of a one-layer model at
-   embedding 128, in f32 (its sweep ``lstm_recurrence_bwd_mid_f32``, never
-   the cluster sweep) and in bf16 (its forward and sweep
-   ``lstm_recurrence_{fwd,bwd}_mid_mma``, never the cluster kernels); a profiled
+   and wgrad must be ``lstm_recurrence_fwd_f32``, ``lstm_recurrence_bwd_f32``
+   and the CUDA-core wgrad alone, and 2 steps of a one-layer model at
+   embedding 128, in f32 (its forward and sweep
+   ``lstm_recurrence_{fwd,bwd}_mid_f32``) and in bf16 (its forward and sweep
+   ``lstm_recurrence_{fwd,bwd}_mid_mma``), never the cluster forward; the
+   f32 steps and both steps at 128 profiled on the dispatch and with the
+   forward pinned to the cluster forward, in turns (``turns``); a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
    one-layer model at embedding 320, timed, and the card's gradients of
    that model against the CPU's (in f32 the tensor-core forward and sweep
    past 288, three tf32 passes; in bf16 the tensor-core kernels past 288;
-   never the cluster kernels, which take up to 288 units; no layer
+   never the cluster forward, which takes up to 288 units; no layer
    kernel);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
@@ -256,18 +265,20 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (forty kernels, each with launches > 0 on
+11. the ``kernels`` line (forty-one kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
     the bf16 forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
-    tensor-core forward at H = 64 as an entry of its own;
+    tensor-core forward at H = 64 as an entry of its own, and its f32 one
+    from the f32 recurrence-backend steps (the cluster forward by name
+    beside it, ``cluster_ms``);
     ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
     ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
     72 beside it); the one-block f32 wide forward's main path f32 at 96; the
-    op's f32 sweep at 96-288 from the f32 one-layer model at embedding 128,
-    and its bf16 sweep and forward from the bf16 one (the cluster sweep,
-    on no path since, by name beside them in both dtypes); the
+    op's f32 sweep and forward at 96-288 from the f32 one-layer model at
+    embedding 128, and its bf16 sweep and forward from the bf16 one (the
+    cluster forward, on no path since, by name beside the forwards); the
     bf16 tensor-core forward at 160-224 as ``hN_*`` fields of its entries;
     the split bf16 weight gradient (``dW_hh`` on ``bilstm_wgrad_mma``,
     ``dW_ih`` on cuBLAS) as ``split_hN_*`` fields of ``bilstm_wgrad_mma``'s
@@ -337,6 +348,8 @@ def phase_build() -> dict:
         LITE_MMA_ROWS,
         LITE_MMA_UNEVEN_ROWS,
         LITE_MMA_WIDTHS,
+        REC_FWD_MID_F32_INSTANCES,
+        REC_FWD_MID_F32_ROWS,
         REC_MID_MMA_INSTANCES,
         REC_MID_MMA_ROWS,
         REC_WGRAD_MMA_SMEM,
@@ -358,6 +371,9 @@ def phase_build() -> dict:
         lite_f32_resident_plan,
         lite_mma_resident_plan,
         recurrence_f32_smem,
+        recurrence_fwd_f32_smem,
+        recurrence_mid_f32_fwd_stages,
+        recurrence_mid_f32_smem,
         recurrence_mid_mma_smem,
         recurrence_mma_smem,
         recurrence_wide_f32_smem,
@@ -400,6 +416,8 @@ def phase_build() -> dict:
         smem[f"fwd_mma (static) bfloat16 E=H={H}"] = fwd_mma_plan([H], H, torch.bfloat16)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
+    for H in (32, H_SERVE):
+        smem[f"recurrence_fwd_f32 H={H}"] = recurrence_fwd_f32_smem(H)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
     smem["wgrad_f32"] = WGRAD_F32_SMEM
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
@@ -411,12 +429,12 @@ def phase_build() -> dict:
     for H in FWD_WIDE_MMA_WIDTHS:
         for rows in FWD_WIDE_MMA_ROWS:
             smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
-    # the 288-thread instances of the CUDA-core cluster kernels (the
-    # recurrence op's forward and sweep)
+    # the 288-thread instance of the CUDA-core cluster forward (the
+    # recurrence op's, by name only)
+    for R in WIDE_ROWS:
+        if wide_smem("fwd", 288, R) <= SMEM_LIMIT:
+            smem[f"fwd_wide H=288 R={R}"] = wide_smem("fwd", 288, R)
     for kind in ("fwd", "bwd"):
-        for R in WIDE_ROWS:
-            if wide_smem(kind, 288, R) <= SMEM_LIMIT:
-                smem[f"{kind}_wide H=288 R={R}"] = wide_smem(kind, 288, R)
         for H in (320, 512, 1024):
             # the bf16 tensor-core kernels past 288, at each row tile they take
             for rows in REC_WIDE_MMA_ROWS[kind][1 if H <= 512 else 2]:
@@ -441,6 +459,17 @@ def phase_build() -> dict:
                 for rows in REC_MID_MMA_ROWS:
                     smem[f"recurrence_{kind}_mid_mma H={H} cluster={cluster} rows={rows}"] = \
                         recurrence_mid_mma_smem(kind, H, rows, cluster)
+    # the op's f32 tensor-core forward at 96-288, each instance (its ring's
+    # stages where fewer than five fit)
+    for (cluster, resident), mid_widths in REC_FWD_MID_F32_INSTANCES.items():
+        for H in mid_widths:
+            for rows in REC_FWD_MID_F32_ROWS:
+                stages = recurrence_mid_f32_fwd_stages(rows, cluster, -(-H // (8 * cluster)),
+                                                       resident)
+                if stages:
+                    smem[f"recurrence_fwd_mid_f32 H={H} cluster={cluster} "
+                         f"{'resident' if resident else 'l2'} rows={rows} stages={stages}"] = \
+                        recurrence_mid_f32_smem(H, rows, cluster, resident, "fwd")
     out = {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "kernels": sorted(libs), "ptxas": ptxas,
            "dynamic_smem_bytes": smem, "native_tokenizer": native_ok}
@@ -877,7 +906,7 @@ TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilst
            "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
            "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32", "bilstm_gates_f32",
            "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_f32_resident",
-           "lstm_recurrence_bwd_mid_f32")
+           "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32", "lstm_recurrence_fwd_mid_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -1508,7 +1537,9 @@ def train_counters():
             "bilstm_fwd_wide_f32_resident": L.bilstm_fwd_wide_f32_resident,
             "lstm_recurrence_bwd_mid_f32": L.lstm_recurrence_bwd_mid_f32,
             "lstm_recurrence_bwd_mid_mma": L.lstm_recurrence_bwd_mid_mma,
-            "lstm_recurrence_fwd_mid_mma": L.lstm_recurrence_fwd_mid_mma}
+            "lstm_recurrence_fwd_mid_mma": L.lstm_recurrence_fwd_mid_mma,
+            "lstm_recurrence_fwd_f32": L.lstm_recurrence_fwd_f32,
+            "lstm_recurrence_fwd_mid_f32": L.lstm_recurrence_fwd_mid_f32}
 
 
 def phase_train(dev, warmup=2, steps=12) -> dict:
@@ -1657,15 +1688,16 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
                         "lstm_recurrence_fwd_kernel", "lstm_recurrence_fwd_mma_kernel",
-                        "lstm_recurrence_fwd_mid_mma_kernel", "bilstm_fwd_mma_kernel", "bilstm_fwd_wide_mma_kernel",
+                        "lstm_recurrence_fwd_mid_mma_kernel", "lstm_recurrence_fwd_f32_kernel",
+                        "lstm_recurrence_fwd_mid_f32_kernel", "bilstm_fwd_mma_kernel",
+                        "bilstm_fwd_wide_mma_kernel",
                         "bilstm_fwd_wide_mma_uneven_kernel",
                         "lstm_recurrence_fwd_wide_mma_kernel",
                         "lstm_recurrence_fwd_wide_f32_kernel", "bilstm_fwd_wide_f32_kernel",
                         "bilstm_fwd_wide_mma_resident_kernel",
                         "bilstm_fwd_wide_f32_resident_kernel"),
                 "sweep": ("bilstm_bwd_f32_kernel", "bilstm_bwd_kernel",
-                          "lstm_recurrence_bwd_f32_kernel",
-                          "lstm_recurrence_bwd_kernel", "bilstm_bwd_lite_kernel",
+                          "lstm_recurrence_bwd_f32_kernel", "bilstm_bwd_lite_kernel",
                           "bilstm_bwd_mma_kernel", "bilstm_bwd_lite_mma_kernel",
                           "bilstm_bwd_lite_mma_uneven_kernel",
                           "lstm_recurrence_bwd_mma_kernel", "lstm_recurrence_bwd_wide_mma_kernel",
@@ -1790,11 +1822,10 @@ WIDE_CUDA_CORE = ("bilstm_wgrad",)
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
 # (the dW_ih products must not launch), in bf16 the bf16 tensor-core
 # forward's and lite sweep's and the split wgrad's; on the recurrence
-# backend at 80 both layers run the op at 96: in f32 its sweep is the
-# tensor-core lstm_recurrence_bwd_mid_f32.cu and the cluster sweep must not
-# launch, in bf16 its forward and sweep are the tensor-core
-# lstm_recurrence_{fwd,bwd}_mid_mma.cu and neither cluster kernel may
-# launch) and, where given, must not
+# backend at 80 both layers run the op at 96: in f32 its forward and sweep
+# are the tensor-core lstm_recurrence_{fwd,bwd}_mid_f32.cu, in bf16
+# lstm_recurrence_{fwd,bwd}_mid_mma.cu, and the cluster forward must not
+# launch in either) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad")),
@@ -1823,14 +1854,15 @@ WIDTH_STEPS = (
      ("bilstm_bwd_lite_f32", "bilstm_wgrad_f32", "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, WIDE_BF16),
-    ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
-                                       "lstm_recurrence_wgrad"),
-     ("lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma")),
+    ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd_mid_f32",
+                                       "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_wgrad"),
+     ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_f32",
+      "lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma")),
     ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd_mid_mma",
                                         "lstm_recurrence_bwd_mid_mma",
                                         "lstm_recurrence_wgrad_mma"),
      ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
-      "lstm_recurrence_bwd_mid_f32")),
+      "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_f32")),
 )
 
 
@@ -3348,8 +3380,8 @@ def recurrence_library(T, H, dev, B=B_TRAIN, dtype=torch.float32):
 def ragged_recurrence_check(dev) -> list:
     """The tensor-core recurrence sweeps against their twin where no size is
     round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16
-    and f32 (3xTF32); the bf16 tensor-core forward there at H = 64 and 32,
-    T = 1 and 5, D = 1, 2 and 3, both masks; then the tensor-core wgrad
+    and f32 (3xTF32); the tensor-core forwards there, bf16 and f32 (3xTF32),
+    at H = 64 and 32, T = 1 and 5, D = 1, 2 and 3, both masks; then the tensor-core wgrad
     there at T = 1 (no row), 2 and 5, at H = 64 and at H = 96 (a partial
     column tile)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -3377,18 +3409,20 @@ def ragged_recurrence_check(dev) -> list:
         if not ok:
             emit({"phase": "recurrence_kernel", "failed": check})
             raise AssertionError(f"the ragged recurrence sweep disagrees with its twin: {check}")
-    for H, T, D, mask in ((H_SERVE, 1, 2, "lengths"), (H_SERVE, 5, 3, "holes"),
-                          (32, 5, 2, "lengths"), (32, 1, 1, "holes")):
-        xg, valid, w, _, _, _ = recurrence_inputs(T, H, 3, cd, dev, mask, SEED + 81 + T, B=27,
+    for (fwd, dt), (H, T, D, mask) in ((f, c) for f in (
+            (L.lstm_recurrence_fwd_mma, torch.bfloat16), (L.lstm_recurrence_fwd_f32, torch.float32))
+            for c in ((H_SERVE, 1, 2, "lengths"), (H_SERVE, 5, 3, "holes"),
+                      (32, 5, 2, "lengths"), (32, 1, 1, "holes"))):
+        xg, valid, w, _, _, _ = recurrence_inputs(T, H, 3, dt, dev, mask, SEED + 81 + T, B=27,
                                                   D=D)
-        res = {n: rel_err(a, b, TOL[cd]) for n, a, b in zip(
-            ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd_mma(xg, valid, w, 3, cd),
-            recurrence_fwd(xg, valid, w, 3, cd))}
+        res = {n: rel_err(a, b, TOL[dt]) for n, a, b in zip(
+            ("hs", "cs", "hn", "cn"), fwd(xg, valid, w, 3, dt),
+            recurrence_fwd(xg, valid, w, 3, dt))}
         torch.cuda.synchronize()
-        check = {"kernel": "lstm_recurrence_fwd_mma", "B": 27, "G": 3, "T": T, "D": D, "H": H,
-                 "dtype": "bfloat16", "mask": mask,
+        check = {"kernel": fwd.__name__, "B": 27, "G": 3, "T": T, "D": D, "H": H,
+                 "dtype": str(dt).replace("torch.", ""), "mask": mask,
                  "max_abs_err": {n: e for n, (e, _) in res.items()},
-                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+                 "tol": f"{TOL[dt]} x max(1, max|ref|)"}
         out.append(check)
         if not all(ok for _, ok in res.values()):
             emit({"phase": "recurrence_kernel", "failed": check})
@@ -3415,19 +3449,17 @@ def ragged_recurrence_check(dev) -> list:
 def op_sweep_h128(dev, H=128) -> dict:
     """The op at H = 128 on its main paths' shapes, the one-layer model at
     embedding 128 on the recurrence backend: D = 2, 400 rows in 5 weight
-    groups, T = 1500. In f32 the sweep is the tensor-core
-    ``lstm_recurrence_bwd_mid_f32.cu`` (three tf32 passes): masks from
+    groups, T = 1500. The sweep and the forward are the tensor-core ones of
+    96-288: ``lstm_recurrence_{bwd,fwd}_mid_f32.cu`` in f32 (three tf32
+    passes), ``lstm_recurrence_{bwd,fwd}_mid_mma.cu`` in bf16. Masks from
     lengths and with holes, each held against its plain twin (timed once;
-    1e-4 x max(1, max|ref|)) and computed twice (the same bits), then timed
-    in turns with the cluster sweep ``lstm_recurrence_bwd.cu`` by name
-    (``cluster_ms``; its own bound at the CUDA cores' f32 rate beside it)
-    and beside its bound at 495/3 TFLOP/s and cuDNN's one-layer backward for
-    the input, TF32 off; the cluster forward, the f32 forward there, beside
-    its bound and cuDNN's training forward (``fwd_*``). In bf16 the
-    tensor-core sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_mma.cu``,
-    the dispatch there, held against their twins (3e-2) and timed in turns
-    with the cluster kernels by name (new, old, old, new: ``cluster_ms``,
-    ``fwd_cluster_ms``), beside their bytes bounds and cuDNN bf16."""
+    1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16) and computed twice (the
+    same bits); the sweep timed twice, the forward in turns with the cluster
+    forward ``lstm_recurrence_fwd.cu`` by name (new, old, old, new:
+    ``fwd_cluster_ms``; its bound at the dtype's CUDA-core or bf16 rate
+    beside it), each beside its bound (f32 at 495/3 TFLOP/s, bf16 at 989)
+    and cuDNN's one-layer training forward and backward for the input, TF32
+    off."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
@@ -3436,9 +3468,8 @@ def op_sweep_h128(dev, H=128) -> dict:
         dt = str(cd).replace("torch.", "")
         size = torch.empty((), dtype=cd).element_size()
         sweep, fwd = L.recurrence_sweep_kernel(H, cd), L.recurrence_fwd_kernel(H, cd)
-        want = ("lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd") if cd == torch.float32 \
-            else ("lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_mid_mma")
-        if (sweep, fwd) != want:
+        kind = "f32" if cd == torch.float32 else "mma"
+        if (sweep, fwd) != (f"lstm_recurrence_bwd_mid_{kind}", f"lstm_recurrence_fwd_mid_{kind}"):
             raise AssertionError(f"H={H} in {dt} runs {sweep} and {fwd}")
         o = {"kernel": sweep, "fwd_kernel": fwd, "B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "H": H,
              "G": G, "dtype": dt, "tol": f"{TOL[cd]} x max(1, max|ref|)", "max_abs_err": {}}
@@ -3450,12 +3481,14 @@ def op_sweep_h128(dev, H=128) -> dict:
             args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
             want, plain_ms = timed_once(lambda: recurrence_sweep(*args))
             got = L.lstm_recurrence_bwd(*args)
+            new_fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd)  # noqa: E731
+            fgot = new_fwd()
             res = {f"{mask}_dxg": rel_err(got, want, TOL[cd]),
-                   f"{mask}_twice": (0.0, bool(torch.equal(got, L.lstm_recurrence_bwd(*args))))}
-            if mask == "lengths":
-                res.update({f"fwd_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
-                    ("hs", "cs", "hn", "cn"), L.lstm_recurrence_fwd(xg, valid, w, G, cd),
-                    (hs, cs, hn, cn))})
+                   f"{mask}_twice": (0.0, bool(torch.equal(got, L.lstm_recurrence_bwd(*args)))),
+                   f"fwd_{mask}_twice": (0.0, all(torch.equal(a, b)
+                                                  for a, b in zip(fgot, new_fwd())))}
+            res.update({f"fwd_{mask}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                ("hs", "cs", "hn", "cn"), fgot, (hs, cs, hn, cn))})
             torch.cuda.synchronize()
             o["max_abs_err"].update({n: e for n, (e, _) in res.items()})
             if not all(ok for _, ok in res.values()):
@@ -3464,51 +3497,35 @@ def op_sweep_h128(dev, H=128) -> dict:
             new = lambda: L.lstm_recurrence_bwd(*args)  # noqa: E731
             if mask == "lengths":
                 o["plain_ms"], o["fwd_plain_ms"] = plain_ms, fwd_plain_ms
-                # new, old, old, new: both sweeps in one run, on one card
-                a, b, c = in_turns(new, lambda: L.lstm_recurrence_bwd(
-                    *args, kernel="lstm_recurrence_bwd"), 3)
-                o["ms"], o["ms_again"], o["cluster_ms"] = a, b, c
-                new_fwd = lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd)  # noqa: E731
-                if cd == torch.float32:
-                    o["fwd_ms"] = time_ms(new_fwd, 3)
-                else:
-                    a, b, c = in_turns(new_fwd, lambda: L.lstm_recurrence_fwd(
-                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 3)
-                    o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = a, b, c
+                o["ms"], o["ms_again"] = time_ms(new, 3), time_ms(new, 3)
+                # new, old, old, new: both forwards in one run, on one card
+                a, b, c = in_turns(new_fwd, lambda: L.lstm_recurrence_fwd(
+                    xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 3)
+                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = a, b, c
             else:
-                o["holes_ms"] = time_ms(new, 3)
-            del xg, valid, w, dhs, hs, cs, want, got, args
+                o["holes_ms"], o["fwd_holes_ms"] = time_ms(new, 3), time_ms(new_fwd, 3)
+            del xg, valid, w, dhs, hs, cs, want, got, fgot, args
         work = {k: recurrence_work(T_TRAIN, H, G, size)[k] for k in ("fwd", "bwd")}
         add_bounds(o, work, cd, {"bwd": kernel_peak(cd, sweep), "fwd": kernel_peak(cd, fwd)})
-        o["cluster_bound_ms"], o["cluster_bound_by"] = bound(
-            [(*work["bwd"], kernel_peak(cd, "lstm_recurrence_bwd"))])
+        o["fwd_cluster_bound_ms"], o["fwd_cluster_bound_by"] = bound(
+            [(*work["fwd"], kernel_peak(cd, "lstm_recurrence_fwd"))])
         o["fwd_library_ms"], o["library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
         out[dt] = o
     return out
 
 
-def mid_f32_instances(dev) -> dict:
-    """The op's f32 sweep ``lstm_recurrence_bwd_mid_f32.cu`` at each width it
-    takes (96-288), D = 2, 400 rows in 5 weight groups: the dispatch held
-    against its twin at T = 300 with masks from lengths (1e-4 x max(1,
-    max|ref|)); then at T = 1500 each instance of the width (blocks a
-    cluster, fragments resident in shared memory or read from L2, row tile)
-    timed in turns with the dispatch (instance, dispatch, dispatch,
-    instance), beside the cluster sweep by name and the bound at 495/3
-    TFLOP/s; each instance's registers and spill bytes (the build's
-    ``-Xptxas -v``), shared memory and the clusters the card holds at
-    once."""
+def ptxas_instances(name: str, pattern: str) -> dict:
+    """Registers and spill-store bytes of each template instance of
+    ``csrc/<name>.cu`` from the build's ``-Xptxas -v`` report, keyed by the
+    integers ``pattern`` (a regex on the mangled kernel name) captures."""
     import re
 
     from intrepppid_tpu_torch.ops import _build
-    from intrepppid_tpu_torch.ops import lstm_cuda as L
-    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
-    name, cd, G = "lstm_recurrence_bwd_mid_f32", torch.float32, G_TRAIN
     log = _build.build_logs.get(name, "").splitlines()
     built = {}
     for i, line in enumerate(log):
-        m = re.search(r"mid_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", line)
+        m = re.search(pattern, line)
         if not m:
             continue
         nxt = next((j for j in range(i + 1, len(log)) if "Compiling entry" in log[j]), len(log))
@@ -3519,65 +3536,143 @@ def mid_f32_instances(dev) -> dict:
                                                    int(spill.group(1)) if spill else None)
     if not built:
         raise AssertionError(f"no ptxas report of {name}'s instances")
+    return built
 
-    def at(cluster, resident, rows, fn):
-        keep = L.REC_MID_F32_CLUSTER, L.REC_MID_F32_FROM_L2, L.REC_MID_F32_ROWS
-        L.REC_MID_F32_CLUSTER = {H: cluster for H in L.REC_MID_F32_WIDTHS}
-        L.REC_MID_F32_FROM_L2 = () if resident else L.REC_MID_F32_WIDTHS
-        L.REC_MID_F32_ROWS = (rows,)
+
+def mid_f32_instances(dev) -> dict:
+    """The op's f32 sweep and forward ``lstm_recurrence_{bwd,fwd}_mid_f32.cu``
+    at each width they take (96-288), D = 2, 400 rows in 5 weight groups,
+    three tf32 passes a product. The sweep's dispatch held against its twin
+    at T = 300 with masks from lengths; every instance of the forward
+    (blocks a cluster, fragments resident or read from L2, row tile) held
+    against its twin at T = 300 (masks from lengths and with holes) and at
+    27 rows in 3 groups (T = 5 and 1), to 1e-4 x max(1, max|ref|), each
+    computed twice (the same bits). Then at T = 1500, masks from lengths,
+    each instance of either kernel timed in turns with the dispatch
+    (instance, dispatch, dispatch, instance); the forward's dispatch in
+    turns with the cluster forward ``lstm_recurrence_fwd.cu`` by name
+    (``fwd_cluster_ms``); each beside its bound (at 495/3 TFLOP/s, or the
+    bytes at 3.35 TB/s where larger; the cluster forward's at 67), the
+    plain twins' time there (once each) and cuDNN f32's one bidirectional
+    layer at that width, TF32 off (training forward and backward for the
+    input); each instance's registers and
+    spill bytes (the build's ``-Xptxas -v``), shared memory and the clusters
+    the card holds at once."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
+
+    cd, G = torch.float32, G_TRAIN
+    names = {k: f"lstm_recurrence_{k}_mid_f32" for k in ("bwd", "fwd")}
+    built = {k: ptxas_instances(n, r"mid_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E")
+             for k, n in names.items()}
+    tables = {"bwd": ("REC_MID_F32_CLUSTER", "REC_MID_F32_FROM_L2", "REC_MID_F32_ROWS"),
+              "fwd": ("REC_FWD_MID_F32_CLUSTER", "REC_FWD_MID_F32_FROM_L2",
+                      "REC_FWD_MID_F32_ROWS")}
+
+    def at(kind, cluster, resident, rows, fn):
+        keep = [getattr(L, n) for n in tables[kind]]
+        for n, v in zip(tables[kind], ({H: cluster for H in L.REC_MID_F32_WIDTHS},
+                                       () if resident else L.REC_MID_F32_WIDTHS, (rows,))):
+            setattr(L, n, v)
         try:
             return fn()
         finally:
-            L.REC_MID_F32_CLUSTER, L.REC_MID_F32_FROM_L2, L.REC_MID_F32_ROWS = keep
+            for n, v in zip(tables[kind], keep):
+                setattr(L, n, v)
+
+    def instances(kind, H):
+        table = L.REC_MID_F32_INSTANCES if kind == "bwd" else L.REC_FWD_MID_F32_INSTANCES
+        rows_of = L.REC_MID_F32_ROWS if kind == "bwd" else L.REC_FWD_MID_F32_ROWS
+        out = []
+        for (cluster, resident), widths in table.items():
+            for rows in rows_of if H in widths else ():
+                if kind == "fwd" and not L.recurrence_mid_f32_fwd_stages(
+                        rows, cluster, -(-H // (8 * cluster)), resident):
+                    continue
+                smem = L.recurrence_mid_f32_smem(H, rows, cluster, resident, kind)
+                if smem <= L.SMEM_LIMIT:
+                    out.append((cluster, resident, rows, smem))
+        return out
 
     out = {}
     for H in L.REC_MID_F32_WIDTHS:
-        if L.recurrence_sweep_kernel(H, cd) != name:
-            raise AssertionError(f"H={H}'s f32 sweep is {L.recurrence_sweep_kernel(H, cd)}")
-        o = {"B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "G": G, "check_T": 300}
-        xg, valid, w, dhs, dhn, dcn = recurrence_inputs(300, H, G, cd, dev, "lengths",
-                                                        SEED + 95 + H)
-        hs, cs, _, _ = recurrence_fwd(xg, valid, w, G, cd)
-        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
-        e, ok = rel_err(L.lstm_recurrence_bwd(*args), recurrence_sweep(*args), TOL[cd])
-        torch.cuda.synchronize()
-        o["max_abs_err"] = e
-        if not ok:
-            emit({"phase": "recurrence_kernel", "failed": {"H": H, **o}})
-            raise AssertionError(f"{name} at H={H} disagrees with its twin: {o}")
-        del xg, valid, w, dhs, hs, cs, args
+        picked = (L.recurrence_sweep_kernel(H, cd), L.recurrence_fwd_kernel(H, cd))
+        if picked != (names["bwd"], names["fwd"]):
+            raise AssertionError(f"H={H} in f32 runs {picked}")
+        o = {"B": B_TRAIN, "T": T_TRAIN, "D": D_REC, "G": G, "check_T": 300, "max_abs_err": {},
+             "instances": {}}
+        for mask, T, B, g in (("lengths", 300, B_TRAIN, G), ("holes", 300, B_TRAIN, G),
+                              ("lengths", 5, 27, 3), ("holes", 1, 27, 3)):
+            xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T, H, g, cd, dev, mask,
+                                                            SEED + 95 + H + T, B=B)
+            fw = recurrence_fwd(xg, valid, w, g, cd)
+            wf = L.recurrence_f32_weights(w)
+            key = f"{mask}_T{T}_B{B}"
+            if (mask, B) == ("lengths", B_TRAIN):
+                args = (xg, valid, w, fw[0], fw[1], dhs, dhn, dcn, g, cd)
+                e, ok = rel_err(L.lstm_recurrence_bwd(*args), recurrence_sweep(*args), TOL[cd])
+                o["max_abs_err"][f"bwd_{key}"] = e
+                if not ok:
+                    emit({"phase": "recurrence_kernel", "failed": {"H": H, **o}})
+                    raise AssertionError(f"{names['bwd']} at H={H} disagrees with its twin: {o}")
+                del args
+            for cluster, resident, rows, _ in instances("fwd", H):
+                run = lambda: L.lstm_recurrence_fwd_mid_f32(xg, valid, w, g, cd, wf=wf)  # noqa
+                got = at("fwd", cluster, resident, rows, run)
+                again = at("fwd", cluster, resident, rows, run)
+                res = {n: rel_err(a, b, TOL[cd])
+                       for n, a, b in zip(("hs", "cs", "hn", "cn"), got, fw)}
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                torch.cuda.synchronize()
+                inst = f"fwd_cl{cluster}_{'res' if resident else 'l2'}_r{rows}_{key}"
+                o["max_abs_err"][inst] = max(e for e, _ in res.values())
+                if not (all(ok for _, ok in res.values()) and same):
+                    emit({"phase": "recurrence_kernel", "failed": {
+                        "H": H, "instance": inst, "same_bits_twice": same,
+                        "max_abs_err": {n: e for n, (e, _) in res.items()}}})
+                    raise AssertionError(f"{names['fwd']} at H={H} ({inst}) disagrees with its "
+                                         f"twin or across two runs")
+                del got, again
+            del xg, valid, w, dhs, fw, wf
         xg, valid, w, dhs, dhn, dcn = recurrence_inputs(T_TRAIN, H, G, cd, dev, "lengths",
                                                         SEED + 96 + H)
-        hs, cs, _, _ = L.lstm_recurrence_fwd(xg, valid, w, G, cd)
-        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
         wf = L.recurrence_f32_weights(w)
-        new = lambda: L.lstm_recurrence_bwd(*args, wf=wf)  # noqa: E731
-        count = L._max_clusters(name, cd, H, dev)
-        o["plan"] = dict(zip(("cluster", "resident", "rows", "tiles", "smem"),
-                             L.recurrence_mid_f32_plan(B_TRAIN, G, H, lambda c, r, R, m: count(
-                                 R, m, c, int(r)), dirs=D_REC)))
-        o["ms"] = time_ms(new, 3)
-        o["cluster_ms"] = time_ms(lambda: L.lstm_recurrence_bwd(
-            *args, kernel="lstm_recurrence_bwd"), 2)
-        o["bound_ms"], o["bound_by"] = bound(
-            [(*recurrence_work(T_TRAIN, H, G, 4)["bwd"], kernel_peak(cd, name))])
-        o["instances"] = {}
-        for (cluster, resident), widths in L.REC_MID_F32_INSTANCES.items():
-            if H not in widths:
-                continue
-            for rows in L.REC_MID_F32_ROWS:
-                smem = L.recurrence_mid_f32_smem(H, rows, cluster, resident)
-                if smem > L.SMEM_LIMIT:
-                    continue
-                inst = lambda: at(cluster, resident, rows, new)  # noqa: E731
-                a, b, c = in_turns(inst, new, 2)
-                mg = -(-H // (8 * cluster))
-                regs, spill = built.get((cluster, rows, mg, int(resident)), (None, None))
-                o["instances"][f"cl{cluster}_{'res' if resident else 'l2'}_r{rows}"] = {
+        hs, cs, _, _ = L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)
+        args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        # the plain twins at the timed shape, once each
+        o["fwd_plain_ms"] = timed_once(lambda: recurrence_fwd(xg, valid, w, G, cd))[1]
+        o["bwd_plain_ms"] = timed_once(lambda: recurrence_sweep(*args))[1]
+        calls = {"bwd": lambda: L.lstm_recurrence_bwd(*args, wf=wf),
+                 "fwd": lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)}
+        work = recurrence_work(T_TRAIN, H, G, 4)
+        for kind, name in names.items():
+            count = L._max_clusters(name, cd, H, dev)
+            o[f"{kind}_plan"] = dict(zip(("cluster", "resident", "rows", "tiles", "smem"),
+                                         L.recurrence_mid_f32_plan(
+                                             B_TRAIN, G, H, lambda c, r, R, m: count(
+                                                 R, m, c, int(r)), dirs=D_REC, kind=kind)))
+            if kind == "fwd":
+                # new, old, old, new: the cluster forward by name beside it
+                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = in_turns(
+                    calls["fwd"], lambda: L.lstm_recurrence_fwd(
+                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 2)
+                o["fwd_cluster_bound_ms"], o["fwd_cluster_bound_by"] = bound(
+                    [(*work["fwd"], kernel_peak(cd, "lstm_recurrence_fwd"))])
+            else:
+                o["bwd_ms"] = time_ms(calls["bwd"], 3)
+            o[f"{kind}_bound_ms"], o[f"{kind}_bound_by"] = bound(
+                [(*work[kind], kernel_peak(cd, name))])
+            for cluster, resident, rows, smem in instances(kind, H):
+                a, b, c = in_turns(lambda: at(kind, cluster, resident, rows, calls[kind]),
+                                   calls[kind], 2)
+                regs, spill = built[kind].get(
+                    (cluster, rows, -(-H // (8 * cluster)), int(resident)), (None, None))
+                o["instances"][f"{kind}_cl{cluster}_{'res' if resident else 'l2'}_r{rows}"] = {
                     "ms": 0.5 * (a + b), "dispatch_ms": c, "smem": smem, "registers": regs,
                     "spill_store_bytes": spill, "tiles": L.mma_tiles(B_TRAIN, G, rows),
                     "max_active_clusters": count(rows, smem, cluster, int(resident))}
-        del xg, valid, w, dhs, hs, cs, args, wf
+        del xg, valid, w, dhs, hs, cs, args, wf, calls
+        o["fwd_library_ms"], o["bwd_library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
         out[f"h{H}"] = o
     return out
 
@@ -3590,34 +3685,20 @@ def mid_mma_instances(dev) -> dict:
     in 3 groups, T = 1 and 5 (short row tiles), to 3e-2 x max(1, max|ref|),
     each computed twice (the same bits); then at T = 1500, 400 rows, masks
     from lengths, each instance timed in turns with the dispatch (instance,
-    dispatch, dispatch, instance), and the dispatch beside the cluster
-    kernels by name and its bytes bound; each instance's registers and
-    spill bytes (the build's ``-Xptxas -v``), shared memory and the
-    clusters the card holds at once."""
-    import re
-
-    from intrepppid_tpu_torch.ops import _build
+    dispatch, dispatch, instance), and the dispatch beside its bytes bound,
+    the plain twins' time there (once each), cuDNN bf16's one
+    bidirectional layer at that width (training forward and
+    backward for the input) and, for the forward, the cluster forward by
+    name in turns (dispatch, cluster, cluster, dispatch); each instance's
+    registers and spill bytes (the build's ``-Xptxas -v``), shared memory
+    and the clusters the card holds at once."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_fwd, recurrence_sweep
 
     cd, G = torch.bfloat16, G_TRAIN
     names = {k: f"lstm_recurrence_{k}_mid_mma" for k in ("bwd", "fwd")}
-    built = {}
-    for kind, name in names.items():
-        log = _build.build_logs.get(name, "").splitlines()
-        for i, line in enumerate(log):
-            m = re.search(r"mid_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-            if not m:
-                continue
-            nxt = next((j for j in range(i + 1, len(log)) if "Compiling entry" in log[j]),
-                       len(log))
-            tail = " ".join(log[i + 1:nxt])
-            regs = re.search(r"Used (\d+) registers", tail)
-            spill = re.search(r"(\d+) bytes spill stores", tail)
-            built[(kind, *(int(v) for v in m.groups()))] = (
-                int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None)
-    if not built:
-        raise AssertionError("no ptxas report of the bf16 mid-width kernels' instances")
+    built = {(kind, *k): v for kind, name in names.items()
+             for k, v in ptxas_instances(name, r"mid_mma_kernelILi(\d+)ELi(\d+)ELi(\d+)E").items()}
 
     def at(cluster, rows, fn):
         keep = L.REC_MID_MMA_CLUSTER, L.REC_MID_MMA_ROWS
@@ -3678,11 +3759,11 @@ def mid_mma_instances(dev) -> dict:
         wf = L.recurrence_mma_weights(w)
         hs, cs, _, _ = L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)
         args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+        # the plain twins at the timed shape, once each
+        o["fwd_plain_ms"] = timed_once(lambda: recurrence_fwd(xg, valid, w, G, cd))[1]
+        o["bwd_plain_ms"] = timed_once(lambda: recurrence_sweep(*args))[1]
         calls = {"bwd": lambda: L.lstm_recurrence_bwd(*args, wf=wf),
                  "fwd": lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)}
-        by_name = {"bwd": lambda: L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"),
-                   "fwd": lambda: L.lstm_recurrence_fwd(xg, valid, w, G, cd,
-                                                        kernel="lstm_recurrence_fwd")}
         work = recurrence_work(T_TRAIN, H, G, 2)
         for kind, name in names.items():
             count = L._max_clusters(name, cd, H, dev)
@@ -3690,8 +3771,13 @@ def mid_mma_instances(dev) -> dict:
                                          L.recurrence_mid_mma_plan(
                                              kind, B_TRAIN, G, H,
                                              lambda c, R, m: count(R, m, c), dirs=D_REC)))
-            o[f"{kind}_ms"] = time_ms(calls[kind], 3)
-            o[f"{kind}_cluster_ms"] = time_ms(by_name[kind], 2)
+            if kind == "fwd":
+                # new, old, old, new: the cluster forward by name beside it
+                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = in_turns(
+                    calls["fwd"], lambda: L.lstm_recurrence_fwd(
+                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 2)
+            else:
+                o["bwd_ms"] = time_ms(calls["bwd"], 3)
             o[f"{kind}_bound_ms"], o[f"{kind}_bound_by"] = bound(
                 [(*work[kind], kernel_peak(cd, name))])
             for cluster, rows in instances(kind, H):
@@ -3703,15 +3789,15 @@ def mid_mma_instances(dev) -> dict:
                     "ms": 0.5 * (a + b), "dispatch_ms": c, "smem": smem, "registers": regs,
                     "spill_store_bytes": spill, "tiles": L.mma_tiles(B_TRAIN, G, rows),
                     "max_active_clusters": count(rows, smem, cluster)}
-        del xg, valid, w, dhs, hs, cs, args, wf, calls, by_name
+        del xg, valid, w, dhs, hs, cs, args, wf, calls
+        o["fwd_library_ms"], o["bwd_library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
         out[f"h{H}"] = o
     return out
 
 
 def recurrence_past_288(dev) -> dict:
     """The recurrence op's kernels past the 256 units they once stopped at:
-    H = 288 (in f32 the cluster forward's 288-thread instance, in bf16 the
-    tensor-core kernels of 96-288), 512 and 1024 (the
+    H = 288 (the tensor-core kernels of 96-288 in both dtypes), 512 and 1024 (the
     tensor-core kernels ``lstm_recurrence_{fwd,bwd}_wide_mma`` in bf16 and
     ``lstm_recurrence_{fwd,bwd}_wide_f32`` in f32), D = 2, 16 rows in 2
     weight groups, T = 64, masks from lengths, f32 and bf16: the forward,
@@ -3922,28 +4008,23 @@ def phase_recurrence_kernel(dev) -> dict:
                     T, H, G, dtype, dev, mask, SEED + 60 + i)
                 tol = TOL[dtype]
                 ref, fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G, dtype))
-                # the forward the dispatch picks (bf16 at H <= 64 the
-                # tensor-core one, where the cluster kernel is no longer
-                # asked for by name)
+                # the forward the dispatch picks, a tensor-core one (bf16 at
+                # H <= 64, where the cluster kernel is no longer asked for by
+                # name; f32 in three tf32 passes)
                 fwd = L.recurrence_fwd_kernel(H, dtype)
                 got = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
                 res = {n: rel_err(a, b, tol)
                        for n, a, b in zip(("hs", "cs", "hn", "cn"), got, ref)}
-                if fwd != "lstm_recurrence_fwd":
-                    again = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
-                    res["twice"] = (0.0, all(torch.equal(a, b) for a, b in zip(got, again)))
-                    del again
-                del got
+                again = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
+                res["twice"] = (0.0, all(torch.equal(a, b) for a, b in zip(got, again)))
+                del got, again
                 hs, cs = ref[:2]
                 args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, dtype)
                 dxg, bwd_plain_ms = timed_once(lambda: recurrence_sweep(*args))
-                # the sweep the dispatch picks (at H <= 64 a tensor-core kernel:
-                # bf16, or 3xTF32 in f32), and there also the cluster kernel by name
+                # the sweep the dispatch picks, a tensor-core one (bf16, or
+                # 3xTF32 in f32)
                 sweep = L.recurrence_sweep_kernel(H, dtype)
                 res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
-                if sweep != "lstm_recurrence_bwd":
-                    res["cluster_dxg"] = rel_err(
-                        L.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd"), dxg, tol)
                 dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
                 # the wgrad the dispatch picks (bf16: the tensor-core kernel),
                 # and there also the CUDA-core kernel by name
@@ -3968,15 +4049,16 @@ def phase_recurrence_kernel(dev) -> dict:
                 t = {**shape, "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
-                if fwd == "lstm_recurrence_fwd_mid_mma":
+                if fwd != "lstm_recurrence_fwd_mma":
                     # new, old, old, new: the cluster forward by name beside it
                     t["fwd_ms"], t["fwd_ms_again"], t["fwd_cluster_ms"] = in_turns(
                         new_fwd, lambda: L.lstm_recurrence_fwd(
                             xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd"), 3)
+                    t["fwd_cluster_bound_ms"], t["fwd_cluster_bound_by"] = bound(
+                        [(*recurrence_work(T, H, G, size)["fwd"],
+                          kernel_peak(dtype, "lstm_recurrence_fwd"))])
                 else:
-                    t["fwd_ms"] = time_ms(new_fwd, 3)
-                    if fwd != "lstm_recurrence_fwd":
-                        t["fwd_ms_again"] = time_ms(new_fwd, 3)
+                    t["fwd_ms"], t["fwd_ms_again"] = time_ms(new_fwd, 3), time_ms(new_fwd, 3)
                 new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
                 if wgrad == "lstm_recurrence_wgrad_mma":
                     # new, old, old, new: both wgrads in one run, on one card
@@ -3985,12 +4067,7 @@ def phase_recurrence_kernel(dev) -> dict:
                             hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), 3)
                 else:
                     t["wgrad_ms"] = time_ms(new_wgrad, 3)
-                if sweep != "lstm_recurrence_bwd":
-                    # new, old, old, new: both sweeps in one run, on one card
-                    old = [time_ms(lambda: L.lstm_recurrence_bwd(
-                        *args, kernel="lstm_recurrence_bwd"), 3) for _ in range(2)]
-                    t["bwd_cluster_ms"] = 0.5 * (old[0] + old[1])
-                    t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
+                t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype,
                            {"bwd": kernel_peak(dtype, sweep), "fwd": kernel_peak(dtype, fwd)})
                 library = mask == "lengths"
@@ -4039,47 +4116,47 @@ def phase_recurrence_kernel(dev) -> dict:
     return out
 
 
-def cluster_step_turns(dev, batches, **widths) -> dict:
-    """The bf16 train step on the recurrence backend (``widths`` as the
-    factory takes them), profiled on the dispatch and with the op's
-    dispatch at 96-288 pinned to the cluster kernels
-    ``lstm_recurrence_{fwd,bwd}.cu`` (the step before their tensor-core
-    successors), in turns: dispatch, cluster, cluster, dispatch, one step
-    each, after a warm-up step of each. The device time of each step
-    (``profile_device``) and of the op's forward and sweep in it."""
+def cluster_step_turns(dev, batches, dtype=torch.bfloat16, **widths) -> dict:
+    """The train step in ``dtype`` on the recurrence backend (``widths`` as
+    the factory takes them), profiled on the dispatch and with the op's
+    forward pinned to the cluster kernel ``lstm_recurrence_fwd.cu`` wherever
+    it takes the width by name (to 288; in bf16 not at 32 / 64: the step
+    before its tensor-core successors there), in turns: dispatch, cluster,
+    cluster, dispatch, one step each, after a warm-up step of each. The
+    device time of each step (``profile_device``) and of the op's forward
+    and sweep in it."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.train import Trainer
 
-    net = intrepppid_network(steps_per_epoch=100, compute_dtype=torch.bfloat16,
+    net = intrepppid_network(steps_per_epoch=100, compute_dtype=dtype,
                              optimizer_type="ranger21_xx", device=dev, seed=SEED, **widths)
     trainer = Trainer(net, seed=SEED)
     groups = {"fwd": "lstm_recurrence_fwd", "sweep": "lstm_recurrence_bwd"}
-    keep = L.recurrence_fwd_kernel, L.recurrence_sweep_kernel
+    keep = L.recurrence_fwd_kernel
 
     def step(pinned):
         if pinned:
             L.recurrence_fwd_kernel = lambda H, cd: (
-                "lstm_recurrence_fwd" if 96 <= H <= 288 else keep[0](H, cd))
-            L.recurrence_sweep_kernel = lambda H, cd: (
-                "lstm_recurrence_bwd" if 96 <= H <= 288 else keep[1](H, cd))
+                "lstm_recurrence_fwd" if H <= 288 and keep(H, cd) != "lstm_recurrence_fwd_mma"
+                else keep(H, cd))
         try:
             return profile_device(lambda: trainer.train_step(batches[0])["loss"].item(),
                                   top=4, groups=groups)
         finally:
-            L.recurrence_fwd_kernel, L.recurrence_sweep_kernel = keep
+            L.recurrence_fwd_kernel = keep
 
     step(False)
     step(True)
     runs = [step(p) for p in (False, True, True, False)]
     pick = lambda rs, k: [r["device_ms_by_group"][k] for r in rs]  # noqa: E731
     new, old = (runs[0], runs[3]), (runs[1], runs[2])
-    return {"dtype": "bfloat16", **widths,
+    return {"dtype": str(dtype).replace("torch.", ""), **widths,
             "device_ms": [r["device_ms"] for r in new],
             "cluster_device_ms": [r["device_ms"] for r in old],
             "wall_ms": [r["wall_ms"] for r in new], "cluster_wall_ms": [r["wall_ms"] for r in old],
             "fwd_ms": pick(new, "fwd"), "cluster_fwd_ms": pick(old, "fwd"),
-            "sweep_ms": pick(new, "sweep"), "cluster_sweep_ms": pick(old, "sweep")}
+            "sweep_ms": pick(new, "sweep")}
 
 
 def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
@@ -4120,7 +4197,6 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                     "fwd": "lstm_recurrence_fwd_kernel",
                     "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
                     "sweep_f32": "lstm_recurrence_bwd_f32_kernel",
-                    "sweep_cluster": "lstm_recurrence_bwd_kernel",
                     "wgrad_mma": "lstm_recurrence_wgrad_mma_kernel",
                     "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
         if not all(np.isfinite(losses + [eval_loss])):
@@ -4130,37 +4206,46 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         layer = [n for n, c in launches.items() if n not in new and c != 0]
         if missing or layer:
             raise AssertionError(
-                f"the recurrence-backend steps missed {missing} or ran the cluster forward or "
-                f"sweep, the CUDA-core wgrad or a layer kernel: {layer}")
+                f"the recurrence-backend steps missed {missing} or ran the cluster forward, "
+                f"the CUDA-core wgrad or a layer kernel: {layer}")
         del trainer, net
         layer_kernels = tuple(n for n in train_counters() if n.startswith("bilstm_"))
+        # the f32 steps at the manuscript width: the f32 tensor-core
+        # forward and sweep at 64 (three tf32 passes; the cluster forward
+        # must not launch) and the CUDA-core wgrad
         f32 = f32_steps(dev, batches,
-                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
+                        ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
                          "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
-                         "lstm_recurrence_wgrad_mma", "lstm_recurrence_bwd",
-                         "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
+                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma",
+                         "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma",
+                         "lstm_recurrence_bwd", "lstm_recurrence_bwd_mid_f32",
+                         "lstm_recurrence_fwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
                          "lstm_recurrence_bwd_mid_mma") + layer_kernels)
-        # past 64 units a one-layer model at embedding 128: in f32 its sweep
-        # is the tensor-core lstm_recurrence_bwd_mid_f32.cu (the cluster
-        # sweep must not launch), in bf16 its forward and sweep are the
-        # tensor-core lstm_recurrence_{fwd,bwd}_mid_mma.cu (neither cluster
-        # kernel may launch)
+        f32["turns"] = cluster_step_turns(dev, batches, dtype=torch.float32)
+        # past 64 units a one-layer model at embedding 128: in f32 its
+        # forward and sweep are the tensor-core
+        # lstm_recurrence_{fwd,bwd}_mid_f32.cu, in bf16
+        # lstm_recurrence_{fwd,bwd}_mid_mma.cu (the cluster forward must not
+        # launch in either)
         mid = f32_steps(dev, batches,
-                        ("lstm_recurrence_fwd", "lstm_recurrence_bwd_mid_f32",
+                        ("lstm_recurrence_fwd_mid_f32", "lstm_recurrence_bwd_mid_f32",
                          "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
-                         "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad_mma",
+                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma",
+                         "lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
+                         "lstm_recurrence_fwd_f32", "lstm_recurrence_wgrad_mma",
                          "lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma",
                          "lstm_recurrence_bwd_mid_mma") + layer_kernels,
                         embedding_size=128, rnn_num_layers=1)
+        mid["turns"] = cluster_step_turns(dev, batches, dtype=torch.float32, embedding_size=128,
+                                          rnn_num_layers=1)
         mid_bf16 = f32_steps(dev, batches,
                              ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma",
                               "lstm_recurrence_wgrad_mma"),
                              ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                               "lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
                               "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad",
-                              "lstm_recurrence_bwd_mid_f32") + layer_kernels,
+                              "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32",
+                              "lstm_recurrence_fwd_mid_f32") + layer_kernels,
                              dtype=torch.bfloat16, embedding_size=128, rnn_num_layers=1)
         mid_bf16["turns"] = cluster_step_turns(dev, batches, embedding_size=128,
                                                rnn_num_layers=1)
@@ -4178,7 +4263,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # kernel in either
     old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
            "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
-           "lstm_recurrence_bwd_mid_mma")
+           "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_f32",
+           "lstm_recurrence_fwd_mid_f32")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
     f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
@@ -5135,18 +5221,22 @@ def main() -> int:
     # with 5 weight groups, layer 1 with shared weights), f32, masks from lengths
     step = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == H_SERVE and t["T"] == T_TRAIN]
+    h32f = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
+            and t["H"] == 32][0]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
-    # the cluster forward's, the f32 sweep's and the CUDA-core wgrad's main
-    # path is the f32 step (the bf16 step's forward is the tensor-core one)
+    # the f32 forward's, the f32 sweep's and the CUDA-core wgrad's main path
+    # is the f32 step
     rec_launches = {n: rpath["float32_steps"]["launches"][n]
-                    for n in ("lstm_recurrence_fwd", "lstm_recurrence_bwd_f32",
+                    for n in ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
                               "lstm_recurrence_wgrad")}
-    for key, name, replaces in (("fwd", "lstm_recurrence_fwd", "lstm_pallas.py:116"),
+    f32_turns = rpath["float32_steps"]["turns"]
+    for key, name, replaces in (("fwd", "lstm_recurrence_fwd_f32", "lstm_pallas.py:116"),
                                 ("bwd", "lstm_recurrence_bwd_f32", "lstm_pallas.py:185"),
                                 ("wgrad", "lstm_recurrence_wgrad", "lstm_pallas.py:185")):
         ms_bound, bound_by = bound([(sum(t[f"{key}_flops"] for t in step),
                                      sum(t[f"{key}_bytes"] for t in step),
                                      kernel_peak(torch.float32, name))])
+        picked = {"fwd": "fwd", "bwd": "sweep", "wgrad": "wgrad"}[key]
         entry = {
             "name": name,
             "route": "cuda",
@@ -5154,8 +5244,8 @@ def main() -> int:
             "replaces": f"intrepppid_tpu/ops/{replaces}",
             "launches": rec_launches[name],
             "max_abs_err": max(v for c in rk["checks"] + rk["ragged_checks"]
-                               if c["dtype"] == "float32" and (key != "bwd" or name in (
-                                   c.get("sweep"), c.get("kernel")))
+                               if c["dtype"] == "float32" and name in (
+                                   c.get(picked), c.get("kernel"))
                                for n, v in c["max_abs_err"].items() if n in rec_errs[key]),
             "ms": sum(t[f"{key}_ms"] for t in step),
             "plain_ms": sum(t[f"{key}_plain_ms"] for t in step),
@@ -5181,62 +5271,108 @@ def main() -> int:
                               "h512_max_abs_err over H=288, 512 and 1024")
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
-                          "cluster_ms": sum(t["bwd_cluster_ms"] for t in step),
-                          "g5_ms": step[0]["bwd_ms"], "g5_cluster_ms": step[0]["bwd_cluster_ms"],
+                          "g5_ms": step[0]["bwd_ms"],
                           "g5_library_ms": step[0]["bwd_library_ms"]})
-            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cluster_ms: "
-                              "lstm_recurrence_bwd.cu by name on the same operands (new, old, "
-                              "old, new); g5_*: layer 0 (5 groups) alone")
+            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); g5_*: layer 0 "
+                              "(5 groups) alone")
+        if key == "fwd":
+            entry.update({
+                "ms_again": sum(t["fwd_ms_again"] for t in step),
+                "cluster_ms": sum(t["fwd_cluster_ms"] for t in step),
+                "cluster_bound_ms": sum(t["fwd_cluster_bound_ms"] for t in step),
+                "g5_ms": step[0]["fwd_ms"], "g5_cluster_ms": step[0]["fwd_cluster_ms"],
+                "g5_bound_ms": step[0]["fwd_bound_ms"],
+                "g5_library_ms": step[0]["fwd_library_ms"],
+                **{f"h32_{k}": h32f[f"fwd_{k}"] for k in (
+                    "ms", "ms_again", "cluster_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "step_device_ms": f32_turns["device_ms"],
+                "step_cluster_device_ms": f32_turns["cluster_device_ms"],
+                "step_kernel_ms": f32_turns["fwd_ms"],
+                "step_cluster_kernel_ms": f32_turns["cluster_fwd_ms"]})
+            entry["work"] += ("; bound at 495/3 TFLOP/s or the bytes (three tf32 passes; "
+                              "cluster_bound_ms: the cluster forward's, at 67); cluster_ms: "
+                              "lstm_recurrence_fwd.cu by name on the same operands (new, old, "
+                              "old, new); g5_*: layer 0 (5 groups) alone; h32_*: H=32, 5 "
+                              "groups, T=300; step_*: the f32 step profiled on the dispatch and "
+                              "with the forward pinned to the cluster kernel (dispatch, "
+                              "cluster, cluster, dispatch); max_abs_err also over 27 rows in 3 "
+                              "groups, T = 1 and 5, D = 1-3")
         kernels.append(entry)
-    # the op's sweep at 96-288 units: in f32 the tensor-core
-    # lstm_recurrence_bwd_mid_f32.cu, in bf16 the cluster sweep; both at
-    # their main path's shapes, the recurrence-backend steps of a one-layer
-    # model at embedding 128 (h256_*: H = 256, the same rows, in turns with
-    # the cluster sweep by name in f32)
+    # the op's f32 sweep and forward at 96-288 units, the tensor-core
+    # lstm_recurrence_{bwd,fwd}_mid_f32.cu, at their main path's shapes, the
+    # recurrence-backend steps of a one-layer model at embedding 128 (h256_*:
+    # H = 256, the same rows; widths_*: each width 96-288)
     o128, mid = rk["op_h128"], rk["mid_f32"]
     h512f = rk["past_288"]["h512"]["float32"]
     h256 = {t["dtype"]: t for t in rk["timings"]
             if t["H"] == E_SCALED and t["mask"] == "lengths"}
-    name = "lstm_recurrence_bwd_mid_f32"
-    o = o128["float32"]
-    kernels.append({
-        "name": name,
-        "route": "cuda",
-        "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
-        "replaces": "intrepppid_tpu/ops/lstm_pallas.py:185",
-        "launches": rpath["float32_steps_embedding_128"]["launches"][name],
-        "max_abs_err": max([v for n, v in o["max_abs_err"].items() if n.endswith("_dxg")]
-                           + [m["max_abs_err"] for m in mid.values()]
-                           + [v for c in rk["checks"] + rk["past_288"]["checks"]
-                              if c.get("sweep") == name
-                              for n, v in c["max_abs_err"].items() if n == "dxg"]),
-        **{k: o[k] for k in ("ms", "ms_again", "plain_ms", "cluster_ms", "holes_ms",
-                             "library_ms", "cluster_bound_ms")},
-        "bound_ms": o["bwd_bound_ms"],
-        "bound_by": o["bwd_bound_by"],
-        "grad_check_launches": sum(c["launches"].get(name, 0)
-                                   for c in widths["grad_checks"]),
-        "h256_ms": h256["float32"]["bwd_ms"], "h256_ms_again": h256["float32"]["bwd_ms_again"],
-        "h256_cluster_ms": h256["float32"]["bwd_cluster_ms"],
-        "h256_plain_ms": h256["float32"]["bwd_plain_ms"],
-        "h256_bound_ms": h256["float32"]["bwd_bound_ms"],
-        "h256_library_ms": h256["float32"]["bwd_library_ms"],
-        "widths_ms": {k: m["ms"] for k, m in mid.items()},
-        "widths_cluster_ms": {k: m["cluster_ms"] for k, m in mid.items()},
-        "widths_bound_ms": {k: m["bound_ms"] for k, m in mid.items()},
-        "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
-                "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
-                "holes); bound at 495/3 TFLOP/s (cluster_bound_ms: the cluster sweep's, at "
-                "67); cluster_ms: lstm_recurrence_bwd.cu by name in turns (new, old, old, "
-                "new); library: cuDNN one-layer nn.LSTM backward (input), with the "
-                "projection's dx, TF32 off; grad_check_launches: the recurrence backend's "
-                "gradient and eval steps at embedding 80 (run at 96); h256_*: H=256, the same "
-                "rows; widths_*: each width 96-288 at the same rows on the dispatch's plan; "
-                "max_abs_err over both masks at 128, 96-288 at T=300, 256 and 288 at T=1500",
-    })
+    mid_turns = rpath["float32_steps_embedding_128"]["turns"]
+    for key, name, replaces, errs in (
+            ("bwd", "lstm_recurrence_bwd_mid_f32", "lstm_pallas.py:185", ("dxg",)),
+            ("fwd", "lstm_recurrence_fwd_mid_f32", "lstm_pallas.py:116",
+             ("hs", "cs", "hn", "cn"))):
+        p = "" if key == "bwd" else "fwd_"
+        o, h = o128["float32"], h256["float32"]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
+            "replaces": f"intrepppid_tpu/ops/{replaces}",
+            "launches": rpath["float32_steps_embedding_128"]["launches"][name],
+            "max_abs_err": max(
+                [v for n, v in o["max_abs_err"].items()
+                 if n.rsplit("_", 1)[-1] in errs and (key == "fwd") == n.startswith("fwd_")]
+                + [v for m in mid.values() for n, v in m["max_abs_err"].items()
+                   if n.startswith(key)]
+                + [v for c in rk["checks"] + rk["past_288"]["checks"]
+                   if c.get("fwd" if key == "fwd" else "sweep") == name
+                   for n, v in c["max_abs_err"].items() if n in errs]),
+            "ms": o[f"{p}ms"], "ms_again": o[f"{p}ms_again"], "holes_ms": o[f"{p}holes_ms"],
+            "plain_ms": o[f"{p}plain_ms"],
+            "bound_ms": o[f"{key}_bound_ms"],
+            "bound_by": o[f"{key}_bound_by"],
+            "library_ms": o[f"{p}library_ms"],
+            "grad_check_launches": sum(c["launches"].get(name, 0)
+                                       for c in widths["grad_checks"]),
+            "h256_ms": h[f"{key}_ms"], "h256_ms_again": h[f"{key}_ms_again"],
+            "h256_plain_ms": h[f"{key}_plain_ms"],
+            "h256_bound_ms": h[f"{key}_bound_ms"],
+            "h256_library_ms": h[f"{key}_library_ms"],
+            "widths_ms": {k: m[f"{key}_ms"] for k, m in mid.items()},
+            "widths_bound_ms": {k: m[f"{key}_bound_ms"] for k, m in mid.items()},
+            "widths_plain_ms": {k: m[f"{key}_plain_ms"] for k, m in mid.items()},
+            "widths_library_ms": {k: m[f"{key}_library_ms"] for k, m in mid.items()},
+            "widths_plan": {k: m[f"{key}_plan"] for k, m in mid.items()},
+            "step_device_ms": mid_turns["device_ms"],
+            "step_kernel_ms": mid_turns["sweep_ms" if key == "bwd" else "fwd_ms"],
+            "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
+                    "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
+                    "holes); bound at 495/3 TFLOP/s or the bytes at 3.35 TB/s; library: cuDNN "
+                    "f32 one-layer nn.LSTM " + ("backward (input), with the projection's dx"
+                                                if key == "bwd" else "training forward")
+                    + ", TF32 off; grad_check_launches: the recurrence backend's gradient and "
+                    "eval steps at embedding 80 (run at 96); h256_*: H=256, the same rows; "
+                    "widths_*: each width 96-288 at the same rows on the dispatch's plan; "
+                    "step_*: that model's train step profiled on the dispatch; max_abs_err "
+                    "over both masks at 128, 96-288 at T=300 (the forward: every instance, "
+                    "and 27 rows at T=1 and 5), 256 and 288",
+        }
+        if key == "fwd":
+            entry.update({
+                "cluster_ms": o["fwd_cluster_ms"], "cluster_bound_ms": o["fwd_cluster_bound_ms"],
+                "h256_cluster_ms": h["fwd_cluster_ms"],
+                "widths_cluster_ms": {k: m["fwd_cluster_ms"] for k, m in mid.items()},
+                "step_cluster_device_ms": mid_turns["cluster_device_ms"],
+                "step_cluster_kernel_ms": mid_turns["cluster_fwd_ms"]})
+            entry["work"] += ("; cluster_ms: lstm_recurrence_fwd.cu by name in turns (new, old, "
+                              "old, new), cluster_bound_ms its bound at 67; step_cluster_*: the "
+                              "same step with the forward pinned to the cluster kernel, in "
+                              "turns")
+        kernels.append(entry)
     # the op's bf16 sweep and forward at 96-288: the tensor-core
-    # lstm_recurrence_{bwd,fwd}_mid_mma.cu, each in turns with its cluster
-    # kernel by name (the cluster sweep is on no path in either dtype since)
+    # lstm_recurrence_{bwd,fwd}_mid_mma.cu, the forward in turns with the
+    # cluster forward by name
     o, mm = o128["bfloat16"], rk["mid_mma"]
     turns = rpath["bfloat16_steps_embedding_128"]["turns"]
     for key, name, replaces, errs in (
@@ -5245,7 +5381,7 @@ def main() -> int:
              ("hs", "cs", "hn", "cn"))):
         p = "" if key == "bwd" else "fwd_"
         h = h256["bfloat16"]
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"intrepppid_tpu_torch/csrc/{name}.cu",
@@ -5253,13 +5389,12 @@ def main() -> int:
             "launches": rpath["bfloat16_steps_embedding_128"]["launches"][name],
             "max_abs_err": max(
                 [v for n, v in o["max_abs_err"].items()
-                 if n.split("_", 1)[-1] in errs and (key == "bwd") == (not n.startswith("fwd_"))]
+                 if n.rsplit("_", 1)[-1] in errs and (key == "fwd") == n.startswith("fwd_")]
                 + [v for m in mm.values() for n, v in m["max_abs_err"].items()
                    if n.startswith(key)]
                 + [v for c in rk["checks"] if c.get(key if key == "fwd" else "sweep") == name
                    for n, v in c["max_abs_err"].items() if n in errs]),
-            "ms": o[f"{p}ms"], "ms_again": o[f"{p}ms_again"],
-            "cluster_ms": o[f"{p}cluster_ms"],
+            "ms": o[f"{p}ms"], "ms_again": o[f"{p}ms_again"], "holes_ms": o[f"{p}holes_ms"],
             "plain_ms": o[f"{p}plain_ms"],
             "bound_ms": o[f"{key}_bound_ms"],
             "bound_by": o[f"{key}_bound_by"],
@@ -5267,35 +5402,38 @@ def main() -> int:
             "grad_check_launches": sum(c["launches"].get(name, 0)
                                        for c in widths["grad_checks"]),
             "h256_ms": h[f"{key}_ms"], "h256_ms_again": h[f"{key}_ms_again"],
-            "h256_cluster_ms": h[f"{key}_cluster_ms"],
             "h256_plain_ms": h[f"{key}_plain_ms"],
             "h256_bound_ms": h[f"{key}_bound_ms"],
             "h256_library_ms": h[f"{key}_library_ms"],
             "widths_ms": {k: m[f"{key}_ms"] for k, m in mm.items()},
-            "widths_cluster_ms": {k: m[f"{key}_cluster_ms"] for k, m in mm.items()},
             "widths_bound_ms": {k: m[f"{key}_bound_ms"] for k, m in mm.items()},
+            "widths_plain_ms": {k: m[f"{key}_plain_ms"] for k, m in mm.items()},
+            "widths_library_ms": {k: m[f"{key}_library_ms"] for k, m in mm.items()},
             "step_device_ms": turns["device_ms"],
-            "step_cluster_device_ms": turns["cluster_device_ms"],
             "step_kernel_ms": turns["sweep_ms" if key == "bwd" else "fwd_ms"],
-            "step_cluster_kernel_ms": turns["cluster_sweep_ms" if key == "bwd"
-                                            else "cluster_fwd_ms"],
             "work": "the layer of the bf16 recurrence-backend model at embedding 128 (5 weight "
-                    "groups), D=2, 400 rows, T=1500, H=128, masks from lengths"
-                    + ("" if key == "fwd" else " (holes_ms: with holes)")
-                    + "; bound: bytes at 3.35 TB/s; cluster_ms: lstm_recurrence_"
-                    + key + ".cu by name in turns (new, old, old, new); library: cuDNN bf16 "
-                    "one-layer nn.LSTM " + ("backward (input), with the projection's dx"
-                                            if key == "bwd" else "training forward")
+                    "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
+                    "holes); bound: bytes at 3.35 TB/s; library: cuDNN bf16 one-layer nn.LSTM "
+                    + ("backward (input), with the projection's dx" if key == "bwd"
+                       else "training forward")
                     + "; grad_check_launches: the recurrence backend's bf16 gradient and eval "
                     "steps at embedding 80 (run at 96); h256_*: H=256, the same rows; "
                     "widths_*: each width 96-288 at the same rows on the dispatch's plan; "
-                    "step_*: that model's train step profiled on the dispatch and with the "
-                    "dispatch pinned to the cluster kernels (dispatch, cluster, cluster, "
-                    "dispatch); max_abs_err over both masks at 128 and 256, every instance at "
-                    "96-288 (T=300 and 27 rows at T=1 and 5)",
-        })
-        if key == "bwd":
-            kernels[-1]["holes_ms"] = o["holes_ms"]
+                    "step_*: that model's train step profiled on the dispatch; max_abs_err over "
+                    "both masks at 128 and 256, every instance at 96-288 (T=300 and 27 rows at "
+                    "T=1 and 5)",
+        }
+        if key == "fwd":
+            entry.update({
+                "cluster_ms": o["fwd_cluster_ms"], "h256_cluster_ms": h["fwd_cluster_ms"],
+                "widths_cluster_ms": {k: m["fwd_cluster_ms"] for k, m in mm.items()},
+                "step_cluster_device_ms": turns["cluster_device_ms"],
+                "step_cluster_kernel_ms": turns["cluster_fwd_ms"]})
+            entry["work"] += ("; cluster_ms: lstm_recurrence_fwd.cu by name in turns (new, old, "
+                              "old, new); step_cluster_*: the same step with the forward "
+                              "pinned to the cluster kernel (dispatch, cluster, cluster, "
+                              "dispatch)")
+        kernels.append(entry)
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
     # the tensor-core forward: the bf16 recurrence-backend step's
@@ -5343,11 +5481,10 @@ def main() -> int:
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": sum(t["bwd_library_ms"] for t in step16),
-        "cluster_ms": sum(t["bwd_cluster_ms"] for t in step16),
+        "ms_again": sum(t["bwd_ms_again"] for t in step16),
         "work": "both layers of one recurrence-backend step (5 weight groups + 1), bf16 "
-                "compute dtype, D=2, 400 rows, T=1500, H=64; cluster_ms: "
-                "lstm_recurrence_bwd.cu on the same operands in the same run; library: cuDNN "
-                "nn.LSTM backward (input) in bf16, with the projection's dx",
+                "compute dtype, D=2, 400 rows, T=1500, H=64; library: cuDNN nn.LSTM backward "
+                "(input) in bf16, with the projection's dx",
     })
     ops_ms = sum(t["wgrad_flops"] for t in step16) / PEAK_BF16_FLOPS * 1e3
     bytes_ms = sum(t["wgrad_bytes"] for t in step16) / PEAK_BYTES * 1e3
@@ -5462,7 +5599,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 40 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 41 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,7 +1,7 @@
 // Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
-// bilstm_wgrad.cu, bilstm_fwd_wide.cu, lstm_recurrence_fwd.cu, lstm_recurrence_bwd.cu,
-// lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the tensor-core
-// kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu among them on
+// bilstm_wgrad.cu, lstm_recurrence_fwd.cu, lstm_recurrence_wgrad.cu, and,
+// with bilstm_mma.cuh, the tensor-core kernels, bilstm_bwd_lite_mma.cu and
+// bilstm_fwd_wide_mma.cu among them on
 // the wide kernels' cluster launch and barriers): compute-dtype
 // conversions, 16-byte stream chunks widened to f32 in shared memory, the
 // per-unit four-gate product over weights resident in shared memory, and
@@ -125,9 +125,8 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
   }
 }
 
-// The CUDA-core cluster kernels (bilstm_fwd_wide.cu, lstm_recurrence_fwd.cu,
-// lstm_recurrence_bwd.cu) split one row tile's
-// hidden units over a cluster of kWideCluster blocks of H threads
+// The CUDA-core cluster kernel (lstm_recurrence_fwd.cu) splits one row
+// tile's hidden units over a cluster of kWideCluster blocks of H threads
 // (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
 // of kWideRows. Each kernel is instantiated for blocks of at most
 // kWideSmallThreads threads (H <= 256: the register budget of 255 a thread

@@ -2,9 +2,8 @@
 // input gates, f32 compute dtype, H = 32 or 64: the tensor-core variant in
 // three tf32 passes, hand-written for Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_bwd_mma.cu (bf16) and lstm_recurrence_bwd.cu
-// (the cluster kernel, which keeps H >= 96), the recurrent part of the TPU
-// kernel
+// Replaces, like lstm_recurrence_bwd_mma.cu (bf16) and the sweeps of the
+// wider widths, the recurrent part of the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _bwd_kernel (via _bwd_pallas, :274)
 // behind the public op fused_lstm_recurrence; the dW sums stay in
 // lstm_recurrence_wgrad.cu.

@@ -3,9 +3,8 @@
 // tensor-core variant in three tf32 passes, hand-written for Hopper
 // (sm_90a).
 //
-// Replaces, like lstm_recurrence_bwd.cu (the CUDA-core cluster kernel,
-// which keeps bf16 at these widths and is reached by name in f32), with
-// lstm_recurrence_wgrad.cu after it (the dW sums), the TPU kernel
+// Replaces, like lstm_recurrence_bwd_mid_mma.cu (bf16 at these widths),
+// with lstm_recurrence_wgrad.cu after it (the dW sums), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _bwd_kernel (via _bwd_pallas, :274)
 // behind the public op fused_lstm_recurrence, for compute dtype float32 and
 // H = 96, 128, ..., 288 (ops/lstm_cuda.py:recurrence_sweep_kernel): a

@@ -2,9 +2,8 @@
 // time-major input gates, bf16 compute dtype, at H = 96 to 288: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_bwd.cu (the CUDA-core cluster kernel,
-// reached by name only since), with lstm_recurrence_wgrad_mma.cu after it
-// (the dW sums), the TPU kernel
+// Replaces, like lstm_recurrence_bwd_mid_f32.cu (f32 at these widths), with
+// lstm_recurrence_wgrad_mma.cu after it (the dW sums), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _bwd_kernel (via _bwd_pallas, :274)
 // behind the public op fused_lstm_recurrence, for compute dtype bfloat16
 // and H = 96, 128, ..., 288 (ops/lstm_cuda.py:recurrence_sweep_kernel): a

@@ -3,9 +3,8 @@
 // tensor-core variant in three tf32 passes, hand-written for Hopper
 // (sm_90a).
 //
-// Replaces, like lstm_recurrence_bwd.cu (whose global-weight instance keeps
-// the widths this kernel does not take, and is reached by name), with
-// lstm_recurrence_wgrad.cu after it (the dW sums), the TPU kernel
+// Replaces, like the op's other sweeps (bf16, and the widths up to 288),
+// with lstm_recurrence_wgrad.cu after it (the dW sums), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _bwd_kernel (via _bwd_pallas, :274)
 // behind the public op fused_lstm_recurrence, for compute dtype float32
 // and H = 320 to 1024 (H % 32 == 0; ops/lstm_cuda.py:recurrence_sweep_kernel).

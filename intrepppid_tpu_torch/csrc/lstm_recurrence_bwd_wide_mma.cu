@@ -2,9 +2,8 @@
 // time-major input gates, bf16 compute dtype, past 288 units: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_bwd.cu (which keeps f32 and the widths
-// from 96 to 288), with lstm_recurrence_wgrad_mma.cu after it (the dW
-// sums), the TPU kernel
+// Replaces, like the op's other sweeps (f32, and the widths up to 288),
+// with lstm_recurrence_wgrad_mma.cu after it (the dW sums), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _bwd_kernel (via _bwd_pallas, :274)
 // behind the public op fused_lstm_recurrence, for compute dtype bfloat16
 // and H = 320 to 1024 (H % 32 == 0; ops/lstm_cuda.py:recurrence_sweep_kernel).

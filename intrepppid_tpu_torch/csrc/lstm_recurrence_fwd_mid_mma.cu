@@ -2,9 +2,9 @@
 // compute dtype, at H = 96 to 288: the tensor-core variant, hand-written
 // for Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_fwd.cu (the CUDA-core cluster kernel,
-// which keeps f32 up to 288 and is reached by name in bf16 at these
-// widths), the TPU kernel
+// Replaces, like lstm_recurrence_fwd_mid_f32.cu (f32 at these widths) and
+// lstm_recurrence_fwd.cu (the CUDA-core cluster kernel, reached by name
+// only), the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _fwd_kernel (via _fwd_pallas, :145)
 // behind the public op fused_lstm_recurrence, for compute dtype bfloat16
 // and H = 96, 128, ..., 288 (ops/lstm_cuda.py:recurrence_fwd_kernel).

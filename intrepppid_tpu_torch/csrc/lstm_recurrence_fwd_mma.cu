@@ -2,8 +2,9 @@
 // compute dtype, H = 32 and 64: the tensor-core variant, hand-written for
 // Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_fwd.cu (the cluster kernel, which keeps f32
-// at every width up to 288 and bf16 from 96 to 288), the TPU kernel
+// Replaces, like lstm_recurrence_fwd_f32.cu (f32 at these widths) and
+// lstm_recurrence_fwd.cu (the cluster kernel, reached by name only), the
+// TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _fwd_kernel (via _fwd_pallas, :145)
 // behind the public op fused_lstm_recurrence, at the widths of the
 // manuscript model's recurrence backend.

@@ -2,8 +2,8 @@
 // compute dtype, past 288 units: the tensor-core variant in three tf32
 // passes, hand-written for Hopper (sm_90a).
 //
-// Replaces, like lstm_recurrence_fwd.cu (whose global-weight instance keeps
-// the f32 widths up to 288 and is reached past 288 by name), the TPU kernel
+// Replaces, like the op's other forwards (bf16, and the widths up to 288),
+// the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas.py  _fwd_kernel (via _fwd_pallas, :145)
 // behind the public op fused_lstm_recurrence, for compute dtype float32
 // and H = 320 to 1024 (H % 32 == 0; ops/lstm_cuda.py:recurrence_fwd_kernel).

@@ -6,7 +6,7 @@
 //     :243-264, via _bwd_pallas, :274).
 //
 // Function: from the forward's hs (T, D, B, H) f32 and the sweep's gate
-// cotangents dxg (T, D, B, 4H) f32 (lstm_recurrence_bwd.cu), for each
+// cotangents dxg (T, D, B, 4H) f32 (ops/lstm_cuda.py:lstm_recurrence_bwd), for each
 // direction d and weight group g (rows [g * B/G, (g+1) * B/G)):
 //   dw[d, g] = sum_{s >= 1, b in g} round(hs[s-1, d, b, :])^T (x)
 //                                   round(dxg[s, d, b, :])          (H, 4H)

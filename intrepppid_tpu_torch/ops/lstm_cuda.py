@@ -107,27 +107,31 @@ Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
-of its own: three on the CUDA cores (the cluster forward and sweep up to
-288 units, the sweep now on no path and reached by name; the f32 wgrad),
-and the tensor-core ones:
+of its own: two on the CUDA cores (the cluster forward up to 288 units,
+on no path and reached by name; the f32 wgrad), and the tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
-  _fwd_pallas``, by one of five kernels (``recurrence_fwd_kernel``):
+  _fwd_pallas``, by one of six tensor-core kernels (``recurrence_fwd_kernel``):
   ``lstm_recurrence_fwd_mma`` launches ``csrc/lstm_recurrence_fwd_mma.cu``
   (bf16 at H = 32 and 64: one block per 8-row tile),
-  ``lstm_recurrence_fwd_mid_mma`` launches
+  ``lstm_recurrence_fwd_f32`` launches ``csrc/lstm_recurrence_fwd_f32.cu``
+  (f32 there: the same schedule in three tf32 passes, ``w`` resident
+  pre-split), ``lstm_recurrence_fwd_mid_mma`` launches
   ``csrc/lstm_recurrence_fwd_mid_mma.cu`` (bf16 at 96-288: clusters of 4 or
   8 blocks, each holding its share of the bf16 weight fragments,
   ``recurrence_mma_weights``, in shared memory),
+  ``lstm_recurrence_fwd_mid_f32`` launches
+  ``csrc/lstm_recurrence_fwd_mid_f32.cu`` (f32 there: the same schedule in
+  three tf32 passes on the f32 fragment copy, ``recurrence_f32_weights``),
   ``lstm_recurrence_fwd_wide_mma`` launches
   ``csrc/lstm_recurrence_fwd_wide_mma.cu`` (bf16 past 288: 8-block
   clusters, the product on ``mma.sync`` from bf16 weight fragments read
   from L2, ``recurrence_mma_weights``), ``lstm_recurrence_fwd_wide_f32``
   launches ``csrc/lstm_recurrence_fwd_wide_f32.cu`` (f32 past 288: the same
-  design in three tf32 passes on the sweep's f32 fragment copy),
+  design in three tf32 passes on the sweep's f32 fragment copy);
   ``lstm_recurrence_fwd`` itself launches the cluster kernel
-  ``csrc/lstm_recurrence_fwd.cu`` for the rest (f32 to 288; bf16 there by
-  name). Plain twin of all five: ``recurrence_fwd``.
+  ``csrc/lstm_recurrence_fwd.cu`` only when asked for by name (up to 288
+  units; bf16 from 96). Plain twin of all seven: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
   _bwd_pallas`` (``dxg``), by one of six tensor-core kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
@@ -145,10 +149,8 @@ and the tensor-core ones:
   clusters of 4 or 8 blocks holding their share of the f32 fragments),
   ``lstm_recurrence_bwd_mid_mma`` launches
   ``csrc/lstm_recurrence_bwd_mid_mma.cu`` (bf16 at 96-288: the same design
-  in one bf16 pass on the forward's bf16 fragments);
-  ``lstm_recurrence_bwd`` itself launches the cluster kernel
-  ``csrc/lstm_recurrence_bwd.cu`` only when asked for by name (96 to 288,
-  either dtype). Plain twin of all seven: ``recurrence_sweep``.
+  in one bf16 pass on the forward's bf16 fragments). Plain twin of all
+  six: ``recurrence_sweep``.
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
@@ -171,9 +173,9 @@ own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
 the forwards (the wide ones too), ``bilstm_wgrad``,
-``lstm_recurrence_fwd``, ``lstm_recurrence_bwd`` and
-``lstm_recurrence_wgrad``; ``bilstm_gates`` and ``bilstm_bwd_lite`` only
-dispatch, and the kernel's own wrapper counts; ``bilstm_wgrad_ih`` counts
+``lstm_recurrence_fwd`` and ``lstm_recurrence_wgrad``; ``bilstm_gates``,
+``bilstm_bwd_lite`` and ``lstm_recurrence_bwd`` only dispatch, and the
+kernel's own wrapper counts (the last keeps a count that stays 0); ``bilstm_wgrad_ih`` counts
 its calls, each a layer's ``dW_ih`` products.
 """
 from __future__ import annotations
@@ -246,11 +248,11 @@ SMEM_LIMIT = 232448
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
-# the recurrence op's CUDA-core cluster kernels' blocks hold H threads, one
+# the recurrence op's CUDA-core cluster forward's blocks hold H threads, one
 # per unit: at most 288 (a second instance past 256); the recurrence op's
 # widest H on the card (its tensor-core kernels past 288); the wide route's
 # input parts are multiples of WIDE_PART_STEP wide
-WIDE_CLUSTER, WIDE_MAX_THREADS, WIDE_PAD, REC_MAX_H = 8, 288, 4, 1024
+WIDE_CLUSTER, WIDE_MAX_THREADS, REC_MAX_H = 8, 288, 1024
 WIDE_PART_STEP = 16
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
 # stages, 16-byte chunks a thread copies per step, widest H, row padding
@@ -387,6 +389,31 @@ REC_MID_F32_INSTANCES = {(8, True): (96, 128, 160, 192, 224, 256),
                          (4, True): (96, 128, 160, 192)}
 REC_MID_F32_CLUSTER = {96: 4, 128: 4, 160: 4, 192: 4}
 REC_MID_F32_FROM_L2 = (288,)
+# the op's f32 tensor-core forward at H = 32 / 64 (lstm_recurrence_fwd_f32.cu,
+# three tf32 passes, one block an 8-row tile, w resident pre-split): the
+# stages of its cp.async ring of xg and mask tiles
+REC_FWD_F32_STAGES = 5
+# the op's f32 tensor-core forward at 96-288 (lstm_recurrence_fwd_mid_f32.cu,
+# three tf32 passes on the sweep's f32 fragment copy): its row tiles; the
+# widths each (blocks a cluster, fragments resident) is instantiated for
+# (the sweep's: 8-block clusters resident to 256 and from L2 at every width,
+# 4-block ones resident at 96-192); the plan's cluster size by width (8
+# where not named) and the widths it reads from L2 (288, where the share and
+# the f32 h tiles leave no room for a ring stage; 224 and 256, where the
+# share leaves room for 16-row tiles only, four waves of 15 8-block clusters
+# at the train shape against two of 32-row L2-fed ones: 30.25 / 31.79 ms
+# against 24.02 / 26.14 in turns on an H100, PERF.md); the most and fewest stages of
+# its cp.async ring (each instance takes the most that fit at its widest
+# width, ``recurrence_mid_f32_fwd_stages``); the padding of its xg ring rows
+# and staged h rows (f32), and a stage's mask bytes
+REC_FWD_MID_F32_ROWS = (16, 32)
+REC_FWD_MID_F32_INSTANCES = {(8, True): (96, 128, 160, 192, 224, 256),
+                             (8, False): (96, 128, 160, 192, 224, 256, 288),
+                             (4, True): (96, 128, 160, 192)}
+REC_FWD_MID_F32_CLUSTER = {96: 4, 128: 4, 160: 4, 192: 4}
+REC_FWD_MID_F32_FROM_L2 = (224, 256, 288)
+REC_FWD_MID_F32_STAGES = (5, 3)
+REC_FWD_MID_F32_X_PAD, REC_FWD_MID_F32_S_PAD, REC_FWD_MID_F32_MASK_BYTES = 4, 4, 48
 # the op's bf16 tensor-core sweep and forward at 96-288
 # (lstm_recurrence_{bwd,fwd}_mid_mma.cu, one bf16 pass on the fragment copy
 # of w, recurrence_mma_weights, each block's share resident in shared
@@ -448,7 +475,6 @@ _SIGNATURES = {
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
     "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
-    "lstm_recurrence_bwd": ("lstm_recurrence_bwd", [_I, _I] + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_fwd_mma": ("lstm_recurrence_fwd_mma", [_P] * 7 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
@@ -483,6 +509,9 @@ _SIGNATURES = {
                                     [_I] * 2 + [_P] * 9 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_fwd_mid_mma": ("lstm_recurrence_fwd_mid_mma",
                                     [_I] * 2 + [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "lstm_recurrence_fwd_f32": ("lstm_recurrence_fwd_f32", [_P] * 7 + [_I] * 7 + [_P]),
+    "lstm_recurrence_fwd_mid_f32": ("lstm_recurrence_fwd_mid_f32",
+                                    [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
     "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
@@ -531,11 +560,6 @@ _CONSTANTS = {
     "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
                              "lstm_recurrence_fwd_rows_mask", "lstm_recurrence_fwd_max_h"),
                             (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_MAX_THREADS)),
-    "lstm_recurrence_bwd": (("lstm_recurrence_bwd_cluster", "lstm_recurrence_bwd_max_threads",
-                             "lstm_recurrence_bwd_rows_mask", "lstm_recurrence_bwd_pad",
-                             "lstm_recurrence_bwd_max_h"),
-                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_PAD,
-                             WIDE_MAX_THREADS)),
     "lstm_recurrence_bwd_mma": (("lstm_recurrence_bwd_mma_tile",
                                  "lstm_recurrence_bwd_mma_stages",
                                  "lstm_recurrence_bwd_mma_max_chunks",
@@ -636,6 +660,17 @@ _CONSTANTS = {
                            ("fwd", (("x_pad", "stages", "stages_at8", "mask_bytes"),
                                     (REC_FWD_MID_MMA_X_PAD, *REC_FWD_MID_MMA_STAGES,
                                      REC_FWD_MID_MMA_MASK_BYTES))))},
+    "lstm_recurrence_fwd_f32": (tuple(f"lstm_recurrence_fwd_f32_{c}" for c in (
+        "tile", "stages", "max_h", "w_pad", "f_pad")),
+        (MMA_TILE, REC_FWD_F32_STAGES, MMA_MAX_H, MMA_PAD, REC_MMA_F32_PAD)),
+    "lstm_recurrence_fwd_mid_f32": (tuple(f"lstm_recurrence_fwd_mid_f32_{c}" for c in (
+        "threads", "pad", "x_pad", "s_pad", "max_stages", "min_stages", "mask_bytes", "min_h",
+        "max_h", "rows", "resident8", "l2_8", "resident4")),
+        (REC_WIDE_MMA_THREADS, REC_WIDE_F32_PAD, REC_FWD_MID_F32_X_PAD, REC_FWD_MID_F32_S_PAD,
+         *REC_FWD_MID_F32_STAGES, REC_FWD_MID_F32_MASK_BYTES, min(REC_MID_F32_WIDTHS),
+         max(REC_MID_F32_WIDTHS), sum(1 << (r // 8) for r in REC_FWD_MID_F32_ROWS),
+         *(sum(1 << (h // 32) for h in REC_FWD_MID_F32_INSTANCES[k])
+           for k in ((8, True), (8, False), (4, True))))),
 }
 _ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
                  for name in _SIGNATURES}
@@ -1408,10 +1443,10 @@ def _lite_mma_part_stride(rows: int) -> int:
 
 
 def wide_smem(kind: str, H: int, rows: int) -> int:
-    """Dynamic shared memory of a wide kernel's block. ``kind`` "fwd" or
-    "bwd" (the CUDA-core kernels, ``rows`` per thread): the f32 ``W_hh``
-    slice of its H/8 units (up to ``WIDE_MAX_THREADS``), the tile's h (and,
-    in the sweep, its rounded gate cotangents). ``kind`` "lite_mma" (the
+    """Dynamic shared memory of a wide kernel's block. ``kind`` "fwd" (the
+    op's CUDA-core cluster forward, ``rows`` per thread): the f32 weight
+    slice of its H/8 units (up to ``WIDE_MAX_THREADS``) and the tile's h.
+    ``kind`` "lite_mma" (the
     tensor-core sweep, a row tile of ``rows``): the bf16 slice and, per
     row, two h_prev buffers, the f32 xg slice, c_prev and two dy streams,
     the bf16 dgates tile, and two buffers of the f32 partial dh of all H
@@ -1464,11 +1499,9 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
         return (4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2
                 + BR * (4 * U + LITE_MMA_XG_PAD) * 4 + 3 * BR * U * 2
                 + BR * (4 * U + pad) * 2 + buffers * H * _lite_mma_part_stride(BR) * 4)
-    BR = WIDE_CLUSTER * rows
-    w_slice = H * (4 * U + (WIDE_PAD if kind == "bwd" else 0)) * 4
-    if kind == "fwd":
-        return w_slice + BR * H * 4
-    return w_slice + BR * H * 4 + BR * 4 * U * 4
+    if kind != "fwd":
+        raise ValueError(f"bilstm wide kernels: no kernel of kind {kind!r}")
+    return H * 4 * U * 4 + WIDE_CLUSTER * rows * H * 4
 
 
 def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
@@ -1482,7 +1515,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     """``(rows, tiles, smem_bytes)`` of a wide launch: the rows whose
     clusters (one per row tile and each of the ``dirs`` directions) fill the
     card in the fewest waves, and among those the smallest tile; ``rows``
-    is the rows per thread (``WIDE_ROWS``) for the CUDA-core kernels and the
+    is the rows per thread (``WIDE_ROWS``) for the CUDA-core forward and the
     row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
     ``LITE_MMA_UNEVEN_ROWS`` there at H % 128 != 0 and for "lite_mma_uneven",
     ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
@@ -1511,7 +1544,7 @@ def wide_plan(kind: str, B: int, G: int, H: int,
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = (wide_tiles(B, G, R) if kind in ("fwd", "bwd") else mma_tiles(B, G, R))
+        tiles = wide_tiles(B, G, R) if kind == "fwd" else mma_tiles(B, G, R)
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -1525,13 +1558,14 @@ _cluster_counts: Dict[tuple, int] = {}
 # smem) of each wide kernel's C entry, when it only reports occupancy
 _NO_OPERANDS = {"bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
-                "lstm_recurrence_fwd": [None] * 7 + [1], "lstm_recurrence_bwd": [None] * 9 + [1],
+                "lstm_recurrence_fwd": [None] * 7 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
                 "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
                 "lstm_recurrence_bwd_mid_f32": [None] * 9 + [1],
                 "lstm_recurrence_bwd_mid_mma": [None] * 9 + [1],
                 "lstm_recurrence_fwd_mid_mma": [None] * 7 + [1],
+                "lstm_recurrence_fwd_mid_f32": [None] * 7 + [1],
                 "lstm_recurrence_fwd_wide_f32": [None] * 7 + [1],
                 "bilstm_bwd_lite_f32": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_f32": [None] * 9}
@@ -3233,11 +3267,11 @@ def recurrence_check(H: int, compute_dtype: torch.dtype) -> None:
     if compute_dtype not in _DTYPE_CODES or H % 32 or not 32 <= H <= REC_MAX_H:
         raise ValueError(
             f"lstm_recurrence kernels take H in {{32, 64, 96, ..., {REC_MAX_H}}} "
-            f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the weight "
-            f"gradient and the cluster sweep lstm_recurrence_bwd; the tensor-core sweep "
+            f"(H % 32 == 0) with compute dtype float32 or bfloat16 (the forward, the sweep and "
+            f"the weight gradient, each by width and dtype; the tensor-core sweep "
             f"lstm_recurrence_bwd_mma takes bfloat16 with H in {set(REC_MMA_WIDTHS)}, as does the "
-            f"forward lstm_recurrence_fwd_mma, and lstm_recurrence_bwd_f32 float32 there), got "
-            f"H={H}, {compute_dtype}")
+            f"forward lstm_recurrence_fwd_mma, and lstm_recurrence_bwd_f32 and "
+            f"lstm_recurrence_fwd_f32 float32 there), got H={H}, {compute_dtype}")
 
 
 def recurrence_wide_mma_check(H: int, compute_dtype: torch.dtype) -> None:
@@ -3266,23 +3300,24 @@ def recurrence_wide_f32_check(H: int, compute_dtype: torch.dtype) -> None:
 
 def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's forward takes, by width and compute
-    dtype alone: bfloat16 at H = 32 or 64 the tensor-core
-    ``"lstm_recurrence_fwd_mma"`` (one block per 8-row tile), from 96 to 288
-    the tensor-core ``"lstm_recurrence_fwd_mid_mma"`` (clusters whose blocks
-    hold their share of the weight fragments); past ``WIDE_MAX_THREADS``
-    units the tensor-core ones, ``"lstm_recurrence_fwd_wide_mma"`` for
-    bfloat16 and ``"lstm_recurrence_fwd_wide_f32"`` (three tf32 passes) for
-    float32; the cluster kernel ``"lstm_recurrence_fwd"`` for float32 up to
-    288; ValueError for what none takes (``recurrence_check``)."""
+    dtype alone, each on the tensor cores: at H = 32 or 64
+    ``"lstm_recurrence_fwd_mma"`` for bfloat16 and
+    ``"lstm_recurrence_fwd_f32"`` (three tf32 passes) for float32, one block
+    per 8-row tile; from 96 to 288 ``"lstm_recurrence_fwd_mid_mma"`` for
+    bfloat16 and ``"lstm_recurrence_fwd_mid_f32"`` (three tf32 passes) for
+    float32, clusters whose blocks hold their share of the weight
+    fragments; past ``WIDE_MAX_THREADS`` units ``"lstm_recurrence_fwd_wide_mma"``
+    for bfloat16 and ``"lstm_recurrence_fwd_wide_f32"`` for float32;
+    ValueError for what none takes (``recurrence_check``). The cluster
+    kernel ``"lstm_recurrence_fwd"`` is on no path: it is asked for by
+    name."""
     recurrence_check(H, compute_dtype)
-    if H in REC_MMA_WIDTHS and compute_dtype == torch.bfloat16:
-        return "lstm_recurrence_fwd_mma"
+    bf16 = compute_dtype == torch.bfloat16
+    if H in REC_MMA_WIDTHS:
+        return "lstm_recurrence_fwd_mma" if bf16 else "lstm_recurrence_fwd_f32"
     if H > WIDE_MAX_THREADS:
-        return "lstm_recurrence_fwd_wide_mma" if compute_dtype == torch.bfloat16 \
-            else "lstm_recurrence_fwd_wide_f32"
-    if compute_dtype == torch.bfloat16:
-        return "lstm_recurrence_fwd_mid_mma"
-    return "lstm_recurrence_fwd"
+        return "lstm_recurrence_fwd_wide_mma" if bf16 else "lstm_recurrence_fwd_wide_f32"
+    return "lstm_recurrence_fwd_mid_mma" if bf16 else "lstm_recurrence_fwd_mid_f32"
 
 
 def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
@@ -3295,8 +3330,7 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
     ``"lstm_recurrence_bwd_wide_f32"`` (three tf32 passes); from 96 to 288
     the tensor-core ``"lstm_recurrence_bwd_mid_f32"`` (three tf32 passes)
     for float32 and ``"lstm_recurrence_bwd_mid_mma"`` for bfloat16;
-    ValueError for what none takes. The cluster kernel
-    ``"lstm_recurrence_bwd"`` is on no path: it is asked for by name."""
+    ValueError for what none takes."""
     recurrence_check(H, compute_dtype)
     if H in REC_MMA_WIDTHS:
         return "lstm_recurrence_bwd_mma" if compute_dtype == torch.bfloat16 \
@@ -3311,48 +3345,99 @@ def recurrence_sweep_kernel(H: int, compute_dtype: torch.dtype) -> str:
 
 def recurrence_mid_f32_check(H: int, compute_dtype: torch.dtype) -> None:
     """ValueError for a width or compute dtype the recurrence op's f32
-    tensor-core sweep at 96-288 (``lstm_recurrence_bwd_mid_f32``) does not
-    take: it takes float32 at H in ``REC_MID_F32_WIDTHS``."""
+    tensor-core sweep and forward at 96-288 (``lstm_recurrence_bwd_mid_f32``,
+    ``lstm_recurrence_fwd_mid_f32``) do not take: they take float32 at H in
+    ``REC_MID_F32_WIDTHS``."""
     if compute_dtype != torch.float32 or H not in REC_MID_F32_WIDTHS:
         raise ValueError(
             f"lstm_recurrence_bwd_mid_f32 takes compute dtype float32 with H in "
-            f"{list(REC_MID_F32_WIDTHS)}, got H={H}, {compute_dtype}")
+            f"{list(REC_MID_F32_WIDTHS)}, as does lstm_recurrence_fwd_mid_f32, got H={H}, "
+            f"{compute_dtype}")
 
 
-def recurrence_mid_f32_smem(H: int, rows: int, cluster: int, resident: bool) -> int:
-    """Dynamic shared memory of a block of ``lstm_recurrence_bwd_mid_f32`` at
-    H units, a row tile of ``rows`` and ``cluster`` blocks a cluster
-    (``csrc/lstm_recurrence_bwd_mid_f32.cu:smem_bytes``): with ``resident``
-    the block's share of the f32 weight fragments (128 bytes a unit group
-    and input, for the most groups a block owns, ceil(H / 8 / cluster)),
-    then the f32 h_prev tile and the block's f32 dgates tile (32 gate
-    columns a group), rows padded by ``REC_WIDE_F32_PAD``, and the f32
-    partial dh of all H units (rows padded to 8 mod 16). ValueError for a
-    width ``recurrence_mid_f32_check`` refuses or a combination with no
-    instance (``REC_MID_F32_INSTANCES``, ``REC_MID_F32_ROWS``)."""
+def recurrence_mid_f32_smem(H: int, rows: int, cluster: int, resident: bool,
+                            kind: str = "bwd") -> int:
+    """Dynamic shared memory of a block of ``lstm_recurrence_{kind}_mid_f32``
+    (``kind`` "bwd" or "fwd") at H units, a row tile of ``rows`` and
+    ``cluster`` blocks a cluster (``csrc/lstm_recurrence_{bwd,fwd}_mid_f32.cu:
+    smem_bytes``): with ``resident`` first the block's share of the f32
+    weight fragments (128 bytes a unit group and input, for the most groups
+    a block owns, ceil(H / 8 / cluster)). "bwd": then the f32 h_prev tile
+    and the block's f32 dgates tile (32 gate columns a group), rows padded
+    by ``REC_WIDE_F32_PAD``, and the f32 partial dh of all H units (rows
+    padded to 8 mod 16). "fwd": two f32 h tiles (rows padded the same), the
+    block's new h staged (8 units a group + ``REC_FWD_MID_F32_S_PAD``), and
+    the cp.async ring of f32 xg rows (4 gates x 8 units a group +
+    ``REC_FWD_MID_F32_X_PAD``) and of mask bytes, its stages
+    ``recurrence_mid_f32_fwd_stages``. ValueError for a width
+    ``recurrence_mid_f32_check`` refuses or a combination with no instance
+    (``REC_MID_F32_INSTANCES`` and ``REC_MID_F32_ROWS``, or
+    ``REC_FWD_MID_F32_INSTANCES``, ``REC_FWD_MID_F32_ROWS`` and a ring of
+    at least ``REC_FWD_MID_F32_STAGES[1]`` stages)."""
     recurrence_mid_f32_check(H, torch.float32)
-    if rows not in REC_MID_F32_ROWS or H not in REC_MID_F32_INSTANCES.get(
-            (cluster, bool(resident)), ()):
-        raise ValueError(f"lstm_recurrence_bwd_mid_f32: no instance for a row tile of {rows}, "
-                         f"{cluster}-block clusters, resident={bool(resident)} at H={H}")
     groups, pad = -(-H // (8 * cluster)), REC_WIDE_F32_PAD
+    fwd = kind == "fwd"
+    rows_of, instances = ((REC_FWD_MID_F32_ROWS, REC_FWD_MID_F32_INSTANCES) if fwd
+                          else (REC_MID_F32_ROWS, REC_MID_F32_INSTANCES))
+    stages = recurrence_mid_f32_fwd_stages(rows, cluster, groups, resident) if fwd else None
+    if kind not in ("bwd", "fwd") or rows not in rows_of or stages == 0 \
+            or H not in instances.get((cluster, bool(resident)), ()):
+        raise ValueError(f"lstm_recurrence_{kind}_mid_f32: no instance for a row tile of "
+                         f"{rows}, {cluster}-block clusters, resident={bool(resident)} at H={H}")
+    if fwd:
+        return _mid_f32_fwd_bytes(H, rows, cluster, resident, stages)
     return ((groups * H * 128 if resident else 0) + rows * (H + pad) * 4
             + rows * (32 * groups + pad) * 4 + H * (rows + (8 - rows) % 16) * 4)
 
 
-def recurrence_mid_f32_plan(B: int, G: int, H: int, max_clusters, dirs: int = 2):
+def _mid_f32_fwd_bytes(H: int, rows: int, cluster: int, resident: bool, stages: int) -> int:
+    # csrc/lstm_recurrence_fwd_mid_f32.cu:smem_with
+    groups, pad = -(-H // (8 * cluster)), REC_WIDE_F32_PAD
+    return ((groups * H * 128 if resident else 0) + 2 * rows * (H + pad) * 4
+            + rows * (8 * groups + REC_FWD_MID_F32_S_PAD) * 4
+            + stages * (rows * (32 * groups + REC_FWD_MID_F32_X_PAD) * 4
+                        + REC_FWD_MID_F32_MASK_BYTES))
+
+
+def recurrence_mid_f32_fwd_stages(rows: int, cluster: int, groups: int, resident: bool) -> int:
+    """The cp.async ring stages of the ``lstm_recurrence_fwd_mid_f32``
+    instance for ``groups`` unit groups a block
+    (``csrc/lstm_recurrence_fwd_mid_f32.cu:stages``): the most, from
+    ``REC_FWD_MID_F32_STAGES[0]`` down to ``[1]``, whose block fits shared
+    memory at the instance's widest width, min(8 * cluster * groups, 288);
+    0 where fewer fit (no instance)."""
+    widest = min(8 * cluster * groups, max(REC_MID_F32_WIDTHS))
+    most, fewest = REC_FWD_MID_F32_STAGES
+    for stages in range(most, fewest - 1, -1):
+        if _mid_f32_fwd_bytes(widest, rows, cluster, resident, stages) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+def recurrence_mid_f32_plan(B: int, G: int, H: int, max_clusters, dirs: int = 2,
+                            kind: str = "bwd"):
     """``(cluster, resident, rows, tiles, smem_bytes)`` of a launch of
-    ``lstm_recurrence_bwd_mid_f32``: ``REC_MID_F32_CLUSTER``'s blocks a
-    cluster at H (8 where it names none), the fragments resident unless H
-    is in ``REC_MID_F32_FROM_L2``, and among ``REC_MID_F32_ROWS`` the row
+    ``lstm_recurrence_{kind}_mid_f32`` (``kind`` "bwd" or "fwd"): the blocks
+    a cluster at H of ``REC_MID_F32_CLUSTER`` ("bwd") or
+    ``REC_FWD_MID_F32_CLUSTER`` ("fwd"), 8 where it names none, the
+    fragments resident unless H is in ``REC_MID_F32_FROM_L2`` (or
+    ``REC_FWD_MID_F32_FROM_L2``), and among ``REC_MID_F32_ROWS`` (or the
+    forward's ``REC_FWD_MID_F32_ROWS`` that have an instance there) the row
     tile whose clusters fill the card in the fewest waves, then the
     smallest. ``max_clusters(cluster, resident, rows, smem)`` is how many
     clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
-    cluster = REC_MID_F32_CLUSTER.get(H, WIDE_CLUSTER)
-    resident = H not in REC_MID_F32_FROM_L2
+    fwd = kind == "fwd"
+    clusters, from_l2, rows_of = ((REC_FWD_MID_F32_CLUSTER, REC_FWD_MID_F32_FROM_L2,
+                                   REC_FWD_MID_F32_ROWS) if fwd else
+                                  (REC_MID_F32_CLUSTER, REC_MID_F32_FROM_L2, REC_MID_F32_ROWS))
+    cluster = clusters.get(H, WIDE_CLUSTER)
+    resident = H not in from_l2
     best = None
-    for rows in REC_MID_F32_ROWS:
-        smem = recurrence_mid_f32_smem(H, rows, cluster, resident)
+    for rows in rows_of:
+        if fwd and not recurrence_mid_f32_fwd_stages(rows, cluster, -(-H // (8 * cluster)),
+                                                     resident):
+            continue
+        smem = recurrence_mid_f32_smem(H, rows, cluster, resident, kind)
         if smem > SMEM_LIMIT:
             continue
         tiles = mma_tiles(B, G, rows)
@@ -3360,7 +3445,7 @@ def recurrence_mid_f32_plan(B: int, G: int, H: int, max_clusters, dirs: int = 2)
         if best is None or waves < best[0]:
             best = (waves, rows, tiles, smem)
     if best is None:
-        raise ValueError(f"lstm_recurrence_bwd_mid_f32: H={H} leaves no row tile in shared "
+        raise ValueError(f"lstm_recurrence_{kind}_mid_f32: H={H} leaves no row tile in shared "
                          f"memory")
     return (cluster, resident) + best[1:]
 
@@ -3520,15 +3605,15 @@ def recurrence_mma_weights(w: torch.Tensor) -> torch.Tensor:
 
 def recurrence_fragments(w: torch.Tensor, compute_dtype: torch.dtype) -> Optional[torch.Tensor]:
     """The fragment copy of ``w (D, G, H, 4H)`` that both the op's forward
-    and its sweep read on the card at H in ``compute_dtype``:
-    ``recurrence_mma_weights(w)`` where the bf16 forward is a cluster
-    kernel on the tensor cores (96 to ``REC_MAX_H``),
-    ``recurrence_f32_weights(w)`` where the f32 one is (past 288), None
-    elsewhere (the f32 sweep at 96-288 builds its own)."""
+    and its sweep read on the card at H in ``compute_dtype``, from 96 to
+    ``REC_MAX_H`` units, where the forward is a cluster kernel on the tensor
+    cores: ``recurrence_mma_weights(w)`` in bf16,
+    ``recurrence_f32_weights(w)`` in f32; None at 32 and 64 (the kernels
+    there read ``w`` itself)."""
     kernel = recurrence_fwd_kernel(w.shape[-2], compute_dtype)
     if kernel in ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_fwd_wide_mma"):
         return recurrence_mma_weights(w)
-    if kernel == "lstm_recurrence_fwd_wide_f32":
+    if kernel in ("lstm_recurrence_fwd_mid_f32", "lstm_recurrence_fwd_wide_f32"):
         return recurrence_f32_weights(w)
     return None
 
@@ -3541,6 +3626,17 @@ def recurrence_mma_smem(H: int) -> int:
     xs, cs = 4 * H + REC_MMA_F32_PAD, H + REC_MMA_F32_PAD
     return (_a16(4 * H * ws * 2) + _a16(2 * MMA_TILE * gs * 2)
             + MMA_STAGES * MMA_TILE * 4 * (xs + ws + 2 * cs))
+
+
+def recurrence_fwd_f32_smem(H: int) -> int:
+    """Dynamic shared memory of the f32 tensor-core recurrence forward's
+    block at H = 32 / 64 (``csrc/lstm_recurrence_fwd_f32.cu:smem_bytes``;
+    its weights sit in registers): two f32 h tiles (rows padded by
+    ``MMA_PAD``) and ``REC_FWD_F32_STAGES`` stages of the f32 xg tile (rows
+    padded by ``REC_MMA_F32_PAD``) and of 32 mask bytes."""
+    return (4 * (2 * MMA_TILE * (H + MMA_PAD)
+                 + REC_FWD_F32_STAGES * MMA_TILE * (4 * H + REC_MMA_F32_PAD))
+            + REC_FWD_F32_STAGES * 32)
 
 
 def recurrence_f32_smem(H: int) -> int:
@@ -3594,38 +3690,34 @@ def lstm_recurrence_fwd(
     :returns: ``hs, cs (T, D, B, H)`` and ``hn, cn (D, B, H)``, f32.
 
     On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
-    for its width and dtype: a tensor-core one through
-    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_mid_mma`,
+    for its width and dtype, a tensor-core one: through
+    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_f32`,
+    :func:`lstm_recurrence_fwd_mid_mma`, :func:`lstm_recurrence_fwd_mid_f32`,
     :func:`lstm_recurrence_fwd_wide_mma` or
     :func:`lstm_recurrence_fwd_wide_f32` (whose ``.launches`` then counts it;
     ``wf``, the fragment copy of ``w`` where the caller has it, goes to the
-    last three: ``recurrence_mma_weights(w)`` in bf16,
-    ``recurrence_f32_weights(w)`` in f32), or the cluster kernel here (f32
-    up to 288 units). ``kernel="lstm_recurrence_fwd"`` asks for the latter
-    by name (to time it beside the others; in bf16 too from 96 to 288, not
-    at ``REC_MMA_WIDTHS``, where the tensor-core forward took over).
+    last four: ``recurrence_mma_weights(w)`` in bf16,
+    ``recurrence_f32_weights(w)`` in f32). The cluster kernel here (up to
+    288 units) runs on no path: ``kernel="lstm_recurrence_fwd"`` asks for it
+    by name (to time it beside the others: in f32 at every width to 288, in
+    bf16 from 96, not at ``REC_MMA_WIDTHS``).
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_fwd"
-    if kernel not in (None, name, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd_mid_mma",
-                      "lstm_recurrence_fwd_wide_mma", "lstm_recurrence_fwd_wide_f32"):
+    if kernel not in (None, name, *_REC_TILE_FWD, *_REC_WIDE_FWD):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
     dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
     if kernel == name and recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mma":
         raise ValueError(f"lstm_recurrence_fwd: csrc/lstm_recurrence_fwd.cu is not asked for by "
                          f"name where the bf16 tensor-core forward takes H={H}")
     kernel = kernel or recurrence_fwd_kernel(H, cd)
-    if kernel == "lstm_recurrence_fwd_mma":
-        return lstm_recurrence_fwd_mma(xg, valid, w, G, cd)
-    if kernel == "lstm_recurrence_fwd_mid_mma":
-        return lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd, wf)
-    if kernel == "lstm_recurrence_fwd_wide_mma":
-        return lstm_recurrence_fwd_wide_mma(xg, valid, w, G, cd, wf)
-    if kernel == "lstm_recurrence_fwd_wide_f32":
-        return lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
+    if kernel in _REC_TILE_FWD:
+        return _REC_TILE_FWD[kernel](xg, valid, w, G, cd)
+    if kernel in _REC_WIDE_FWD:
+        return _REC_WIDE_FWD[kernel](xg, valid, w, G, cd, wf)
     _cluster_width(name, H)
     hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
@@ -3730,6 +3822,90 @@ def lstm_recurrence_fwd_mid_mma(
 lstm_recurrence_fwd_mid_mma.launches = 0
 
 
+def lstm_recurrence_fwd_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward in f32 on the tensor cores at H = 32 and 64,
+    three tf32 passes a product (``csrc/lstm_recurrence_fwd_f32.cu``: the
+    one-block schedule of :func:`lstm_recurrence_fwd_mma` with ``w``
+    resident in shared memory pre-split into big and small tf32 parts, as
+    the f32 sweep holds it); the contract of :func:`lstm_recurrence_fwd`.
+    Takes float32 at H in ``REC_MMA_WIDTHS`` and raises for the rest. On the
+    CPU the plain twin; under grad mode an operand that requires grad is
+    refused."""
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_fwd_f32"
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    if recurrence_fwd_kernel(H, cd) != name:
+        raise ValueError(f"{name} kernel takes compute dtype float32 with H in "
+                         f"{set(REC_MMA_WIDTHS)}, got H={H}, {cd}")
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd_f32(
+            xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, mma_tiles(B, G),
+            recurrence_fwd_f32_smem(H), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd_f32.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd_f32.launches = 0
+
+
+def lstm_recurrence_fwd_mid_f32(
+    xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
+    wf: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's forward in f32 on the tensor cores at 96-288 units,
+    three tf32 passes a product (``csrc/lstm_recurrence_fwd_mid_f32.cu``:
+    the schedule of :func:`lstm_recurrence_fwd_mid_mma` on the f32 fragment
+    copy the f32 sweep reads, ``recurrence_f32_weights``, each block's share
+    in shared memory (read from L2 at 288), split in registers); the
+    contract of :func:`lstm_recurrence_fwd`. ``wf`` is that copy of ``w``
+    where the caller has it (``FusedLSTMRecurrence`` builds it once for the
+    forward and the sweep), else it is built here. Takes float32 at H in
+    ``REC_MID_F32_WIDTHS`` and raises for the rest; the launch is
+    ``recurrence_mid_f32_plan(..., kind="fwd")``'s. On the CPU the plain
+    twin; under grad mode an operand that requires grad is refused."""
+    _no_graph(xg, w)
+    if not xg.is_cuda:
+        return recurrence_fwd(xg, valid, w, G, compute_dtype)
+    cd, name = compute_dtype, "lstm_recurrence_fwd_mid_f32"
+    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
+    recurrence_mid_f32_check(H, cd)
+    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
+    cn = torch.zeros_like(hn)
+    if B * D == 0 or T == 0:
+        return hs, cs, hn, cn
+    count = _max_clusters(name, cd, H, dev)
+    cluster, resident, rows, tiles, smem = recurrence_mid_f32_plan(
+        B, G, H, lambda c, r, R, m: count(R, m, c, int(r)), dirs=D, kind="fwd")
+    wf = _f32_copy(w, wf)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_fwd_mid_f32(
+            cluster, int(resident), rows, xg.data_ptr(), valid8.data_ptr(), wf.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles,
+            smem, torch.cuda.current_stream(dev).cuda_stream, None,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_fwd_mid_f32.launches += 1
+    return hs, cs, hn, cn
+
+
+lstm_recurrence_fwd_mid_f32.launches = 0
+
+
 def lstm_recurrence_fwd_wide_mma(
     xg: torch.Tensor, valid: torch.Tensor, w: torch.Tensor, G: int, compute_dtype: torch.dtype,
     wf: Optional[torch.Tensor] = None,
@@ -3769,6 +3945,14 @@ def lstm_recurrence_fwd_wide_f32(
 
 
 lstm_recurrence_fwd_wide_f32.launches = 0
+# the tensor-core recurrence forwards' wrappers by kernel name: those that
+# read w itself, and those that take its fragment copy
+_REC_TILE_FWD = {"lstm_recurrence_fwd_mma": lstm_recurrence_fwd_mma,
+                 "lstm_recurrence_fwd_f32": lstm_recurrence_fwd_f32}
+_REC_WIDE_FWD = {"lstm_recurrence_fwd_mid_mma": lstm_recurrence_fwd_mid_mma,
+                 "lstm_recurrence_fwd_mid_f32": lstm_recurrence_fwd_mid_f32,
+                 "lstm_recurrence_fwd_wide_mma": lstm_recurrence_fwd_wide_mma,
+                 "lstm_recurrence_fwd_wide_f32": lstm_recurrence_fwd_wide_f32}
 
 
 def _wide_recurrence_fwd(wrapper, check, plan, copy, xg, valid, w, G, compute_dtype):
@@ -3851,27 +4035,25 @@ def lstm_recurrence_bwd(
     ``dcn (D, B, H)`` are f32, or None for zero.
 
     On the card the sweep runs the kernel ``recurrence_sweep_kernel`` names
-    for its width and dtype, a tensor-core one: through
-    :func:`lstm_recurrence_bwd_mma`, :func:`lstm_recurrence_bwd_f32`,
-    :func:`lstm_recurrence_bwd_wide_mma`,
+    for its width and dtype (or ``kernel``, one of those names), a
+    tensor-core one: through :func:`lstm_recurrence_bwd_mma`,
+    :func:`lstm_recurrence_bwd_f32`, :func:`lstm_recurrence_bwd_wide_mma`,
     :func:`lstm_recurrence_bwd_wide_f32`,
     :func:`lstm_recurrence_bwd_mid_f32` or
-    :func:`lstm_recurrence_bwd_mid_mma` (whose ``.launches`` then counts
-    it; ``wf``, the fragment copy of ``w`` where the caller has it, goes to
-    the last four: ``recurrence_mma_weights(w)`` in bf16,
-    ``recurrence_f32_weights(w)`` in f32). The cluster kernel here (96 to
-    288 units) runs on no path: ``kernel="lstm_recurrence_bwd"`` asks for it
-    by name (to time it beside the others, in either dtype)."""
+    :func:`lstm_recurrence_bwd_mid_mma`, whose ``.launches`` counts it;
+    ``wf``, the fragment copy of ``w`` where the caller has it, goes to the
+    last four: ``recurrence_mma_weights(w)`` in bf16,
+    ``recurrence_f32_weights(w)`` in f32. This function launches nothing
+    itself."""
     _no_graph(xg, w, hs, cs)
     if not xg.is_cuda:
         return recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, G, compute_dtype)
     cd = compute_dtype
-    name = "lstm_recurrence_bwd"
-    if kernel not in (None, name, "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_bwd_mid_mma",
+    if kernel not in (None, "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_bwd_mid_mma",
                       *_TILE_SWEEP, *_WIDE_SWEEP):
         raise ValueError(f"lstm_recurrence_bwd: no sweep kernel named {kernel!r}")
-    dev, T, D, B, H, valid8 = _recurrence_sweep_operands(
-        name, xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
+    _, _, _, _, H, _ = _recurrence_sweep_operands(
+        "lstm_recurrence_bwd", xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     kernel = kernel or recurrence_sweep_kernel(H, cd)
     if kernel in _TILE_SWEEP:
         return _TILE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
@@ -3879,26 +4061,14 @@ def lstm_recurrence_bwd(
         return lstm_recurrence_bwd_mid_f32(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
     if kernel == "lstm_recurrence_bwd_mid_mma":
         return lstm_recurrence_bwd_mid_mma(xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
-    if kernel in _WIDE_SWEEP:
-        return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
-    _cluster_width(name, H)
-    dxg = torch.empty((T, D, B, 4 * H), dtype=torch.float32, device=dev)
-    if B * D * T == 0:
-        return dxg
-    R, tiles, smem = wide_plan("bwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    with torch.cuda.device(dev):
-        err = _kernels(name).lstm_recurrence_bwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), _opt_ptr(dhs), _opt_ptr(dhn), _opt_ptr(dcn), dxg.data_ptr(), D, T,
-            B, H, G, tiles, smem,
-            torch.cuda.current_stream(dev).cuda_stream, None,
-        )
-    _raise_on_error(name, err)
-    lstm_recurrence_bwd.launches += 1
-    return dxg
+    return _WIDE_SWEEP[kernel](xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd, wf)
 
 
+# it launches nothing itself: the count stays 0 (the steps' launch checks
+# hold it there, as they did while it had a kernel of its own)
 lstm_recurrence_bwd.launches = 0
+
+
 
 
 def lstm_recurrence_bwd_wide_mma(

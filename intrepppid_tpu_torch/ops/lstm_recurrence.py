@@ -179,10 +179,9 @@ class FusedLSTMRecurrence(torch.autograd.Function):
     card's widest (``REC_MAX_H``) a CUDA tensor raises and a CPU tensor
     runs the plain versions unpadded. On the card the forward and the sweep
     read one fragment copy of the weights (``lstm_cuda.recurrence_fragments``),
-    built once here and saved for the backward: in bf16 from 96 units
-    (``recurrence_mma_weights``), in f32 past 288
-    (``recurrence_f32_weights``); in f32 from 96 to 288 only the sweep
-    reads one, and its wrapper builds it once a backward."""
+    built once here and saved for the backward, from 96 units:
+    ``recurrence_mma_weights`` in bf16, ``recurrence_f32_weights`` in
+    f32."""
 
     @staticmethod
     def forward(ctx, xg, valid, w, G, compute_dtype):

@@ -55,7 +55,7 @@ def test_every_kernel_source_is_built_and_bound():
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "lstm_recurrence_fwd",
-                       "lstm_recurrence_bwd", "lstm_recurrence_wgrad", "bilstm_bwd_mma",
+                       "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
@@ -66,7 +66,8 @@ def test_every_kernel_source_is_built_and_bound():
                        "bilstm_bwd_lite_f32_resident", "lstm_recurrence_fwd_mma",
                        "bilstm_bwd_lite_mma_resident", "bilstm_fwd_wide_mma_resident",
                        "bilstm_fwd_wide_f32_resident", "lstm_recurrence_bwd_mid_f32",
-                       "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_mid_mma"}
+                       "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_mid_mma",
+                       "lstm_recurrence_fwd_f32", "lstm_recurrence_fwd_mid_f32"}
     assert sources == set(lstm_cuda._SIGNATURES) == set(lstm_cuda._CONSTANTS)
     # each library's C entry and its error string are named in the sources
     for name, (fn, _) in lstm_cuda._SIGNATURES.items():
@@ -84,6 +85,7 @@ def test_every_kernel_source_is_built_and_bound():
         assert all(f"int {g}()" in text for g in getters), name
     for name, mma in (("bilstm_bwd_mma", "mma_bf16("), ("lstm_recurrence_bwd_mma", "mma_bf16("),
                       ("lstm_recurrence_fwd_mma", "mma_bf16("),
+                      ("lstm_recurrence_fwd_f32", "mma_tf32("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
                       ("bilstm_gates_mma", "mma_bf16("), ("bilstm_gates_f32", "mma_tf32("),
@@ -183,6 +185,20 @@ def test_every_kernel_source_is_built_and_bound():
     body = (_build.CSRC / "lstm_recurrence_bwd_mid_f32.cu").read_text().rsplit("#include", 1)[1]
     assert "dh_fragment(" in body and "mma3(" in body and "deal_items(" in body
     assert "clusterDim.x = CL" in body and "ldg_weight(" in body and "w_s[idx]" in body
+    # the op's f32 forward at 96-288: the bf16 forward's schedule (item deal,
+    # clusters of 4 or 8 blocks, the new h pushed to every block, the share
+    # copied into shared memory or read from L2, xg and mask through a
+    # cp.async ring) on the f32 header's fragment copy, its one product in
+    # three tf32 passes summed apart, weights and h both split (never one
+    # pass)
+    text = (_build.CSRC / "lstm_recurrence_fwd_mid_f32.cu").read_text()
+    assert '#include "lstm_recurrence_wide_f32.cuh"' in text
+    body = text.rsplit("#include", 1)[1]
+    assert body.count("mma_tf32(") == 3 and body.count("split4(") == 1
+    assert body.count("split_tf32(") == 2 and "deal_items(" in body
+    assert "clusterDim.x = CL" in body and "ldg_weight(" in body and "w_s[idx]" in body
+    assert "cp_async16_n(" in body and "st_dsmem_v4(" in body and "mapa_u32(" in body
+    assert "map_shared_rank(" not in body and "mma_bf16(" not in body
     # the op's bf16 sweep and forward at 96-288: one bf16 pass on the bf16
     # fragment copy (through lstm_recurrence_wide_mma.cuh), each block's share
     # copied once into shared memory, the item deal, clusters of 4 or 8
@@ -199,15 +215,12 @@ def test_every_kernel_source_is_built_and_bound():
         assert "clusterDim.x = CL" in body and exchange in body and "mapa_u32(" in body, name
         assert own in body and "ldmatrix_x4(" in body, name
         assert "mma_tf32(" not in body and "map_shared_rank(" not in body, name
-    # the CUDA-core cluster kernels dispatch each width to a block instance
-    # (256 threads, and 288 where a route takes 257-288 units: the
-    # recurrence op, in both dtypes); none reads its weight slice from a
-    # global copy
-    for name, dispatch in (("lstm_recurrence_fwd", "dispatch_wide("),
-                           ("lstm_recurrence_bwd", "dispatch_wide(")):
-        text = (_build.CSRC / f"{name}.cu").read_text()
-        assert dispatch in text and "wl" not in text.split(), name
-        assert "kGlobalW" not in text and "__launch_bounds__(kThreads, 1)" in text
+    # the CUDA-core cluster forward (the op's, by name only) dispatches each
+    # width to a block instance (256 threads, and 288 for 257-288 units, in
+    # both dtypes); it reads no weight slice from a global copy
+    text = (_build.CSRC / "lstm_recurrence_fwd.cu").read_text()
+    assert "dispatch_wide(" in text and "wl" not in text.split()
+    assert "kGlobalW" not in text and "__launch_bounds__(kThreads, 1)" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the
@@ -220,6 +233,7 @@ def test_every_kernel_source_is_built_and_bound():
                              ("bilstm_bwd_lite_f32_resident", 6, 12),
                              ("bilstm_fwd_f32", 3, 6),
                              ("lstm_recurrence_bwd_f32", 5, 4), ("bilstm_wgrad_f32", 3, 3),
+                             ("lstm_recurrence_fwd_f32", 3, 3),
                              ("bilstm_gates_f32", 3, 1)):
         text = kernel_source(name).rsplit("#include", 1)[1]
         assert text.count("mma_tf32(") == mma and text.count("split_tf32(") == split, name

@@ -208,16 +208,18 @@ def test_wide_wrappers_take_plain_versions_on_cpu():
 
 def test_wide_plan_fills_the_card_in_fewest_waves():
     """The scaled train shape at H = 256 with 16 clusters at once: the
-    forward's 80-row tiles cover layer 0's five groups of 80 and layer 1's
-    400 rows in one wave; the sweep's tiles are capped by shared memory,
-    so it takes the smallest tile of its fewest waves."""
+    cluster forward's 80-row tiles cover layer 0's five groups of 80 and
+    layer 1's 400 rows in one wave; its tiles are capped by shared memory,
+    so past them it takes the smallest tile of its fewest waves. The
+    cluster sweep's kind is gone with its kernel."""
     sixteen = lambda R, smem: 16  # noqa: E731
     assert lstm_cuda.wide_plan("fwd", 400, 5, 256, sixteen)[:2] == (10, 5)
     assert lstm_cuda.wide_plan("fwd", 400, 1, 256, sixteen)[:2] == (7, 8)
-    R, tiles, smem = lstm_cuda.wide_plan("bwd", 400, 5, 256, sixteen)
-    assert (R, tiles) == (4, 15) and smem <= lstm_cuda.SMEM_LIMIT
-    assert lstm_cuda.wide_plan("bwd", 400, 1, 256, sixteen)[:2] == (7, 8)
-    assert lstm_cuda.wide_smem("bwd", 256, 10) > lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.wide_smem("fwd", 256, 10) <= lstm_cuda.SMEM_LIMIT
+    R, tiles, smem = lstm_cuda.wide_plan("fwd", 400, 5, 288, sixteen)
+    assert smem == lstm_cuda.wide_smem("fwd", 288, R) <= lstm_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="no kernel of kind 'bwd'"):
+        lstm_cuda.wide_plan("bwd", 400, 5, 256, sixteen)
     # more room on the card: the smallest tile that fits one wave
     assert lstm_cuda.wide_plan("fwd", 400, 1, 128, lambda R, smem: 64)[0] == 2
     assert lstm_cuda.wide_tiles(400, 5, 4) == 15 and lstm_cuda.wide_tiles(50, 1, 2) == 4
@@ -652,7 +654,7 @@ def test_sweep_mma_wrappers_take_plain_versions_on_cpu():
     rargs = (xg, valid, w, hs, cs, dhs, None, dcn, 2, cd)
     dxg = recurrence_sweep(*rargs)
     assert torch.equal(lstm_cuda.lstm_recurrence_bwd_mma(*rargs), dxg)
-    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs, kernel="lstm_recurrence_bwd"), dxg)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs), dxg)
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.lstm_recurrence_bwd_mma(xg, valid, w.clone().requires_grad_(), *rargs[3:])
     assert [f.launches for f in wrappers] == before
@@ -724,8 +726,14 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
 
 
 @pytest.mark.parametrize("H,dtype,kernel", [
-    (32, torch.bfloat16, "lstm_recurrence_fwd_mma"), (64, torch.float32, "lstm_recurrence_fwd"),
-    (64, torch.bfloat16, "lstm_recurrence_fwd_mma"), (32, torch.float32, "lstm_recurrence_fwd"),
+    (32, torch.bfloat16, "lstm_recurrence_fwd_mma"),
+    # f32 at 32 / 64 and 288: the tensor-core forwards in three tf32 passes
+    # (ids kept from the cluster forward's cases)
+    pytest.param(64, torch.float32, "lstm_recurrence_fwd_f32",
+                 id="64-dtype1-lstm_recurrence_fwd"),
+    (64, torch.bfloat16, "lstm_recurrence_fwd_mma"),
+    pytest.param(32, torch.float32, "lstm_recurrence_fwd_f32",
+                 id="32-dtype3-lstm_recurrence_fwd"),
     # bf16 at 96-288: the tensor-core forward of those widths (ids kept from
     # the cluster forward's cases)
     pytest.param(96, torch.bfloat16, "lstm_recurrence_fwd_mid_mma",
@@ -734,7 +742,11 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
                  id="256-dtype5-lstm_recurrence_fwd"),
     pytest.param(288, torch.bfloat16, "lstm_recurrence_fwd_mid_mma",
                  id="288-dtype6-lstm_recurrence_fwd"),
-    (288, torch.float32, "lstm_recurrence_fwd"),
+    pytest.param(288, torch.float32, "lstm_recurrence_fwd_mid_f32",
+                 id="288-dtype7-lstm_recurrence_fwd"),
+    (96, torch.float32, "lstm_recurrence_fwd_mid_f32"),
+    (128, torch.float32, "lstm_recurrence_fwd_mid_f32"),
+    (224, torch.float32, "lstm_recurrence_fwd_mid_f32"),
     (320, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
     (352, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
     (512, torch.bfloat16, "lstm_recurrence_fwd_wide_mma"),
@@ -744,12 +756,13 @@ def test_recurrence_sweep_kernel_by_width_and_dtype(H, dtype, kernel):
     (1024, torch.float32, "lstm_recurrence_fwd_wide_f32"),
     (48, torch.bfloat16, None), (64, torch.float16, None), (1056, torch.bfloat16, None)])
 def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
-    """The forward's picker, by width and dtype alone: bf16 at H = 32 and 64
-    the tensor-core forward with one block a row tile, from 96 to 288 the
-    tensor-core forward whose blocks hold their share of the weights; past
-    288 the tensor-core forwards, bf16 and (three tf32 passes) f32, up to
-    the op's 1024 on the card; the cluster kernel for f32 up to 288; what
-    none takes is refused by the op's check."""
+    """The forward's picker, by width and dtype alone, a tensor-core kernel
+    everywhere (f32 in three tf32 passes): at H = 32 and 64 the forward with
+    one block a row tile, whose f32 weights fit one block pre-split; from 96
+    to 288 the forward whose blocks hold their share of the weights, with a
+    row tile that fits shared memory; past 288 the forwards reading their
+    fragments from L2, up to the op's 1024 on the card; the cluster kernel
+    on no path; what none takes is refused by the op's check."""
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
             lstm_cuda.recurrence_fwd_kernel(H, dtype)
@@ -762,6 +775,13 @@ def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
         cluster = lstm_cuda.REC_MID_MMA_CLUSTER["fwd"].get(H, 8)
         assert min(lstm_cuda.recurrence_mid_mma_smem("fwd", H, R, cluster) for R in
                    lstm_cuda.REC_MID_MMA_ROWS) <= lstm_cuda.SMEM_LIMIT
+    if kernel == "lstm_recurrence_fwd_f32":
+        assert lstm_cuda.recurrence_fwd_f32_smem(H) <= lstm_cuda.SMEM_LIMIT
+    if kernel.endswith("mid_f32"):
+        plan = lstm_cuda.recurrence_mid_f32_plan(400, 5, H, lambda c, r, R, m: 15, kind="fwd")
+        assert plan[0] == lstm_cuda.REC_FWD_MID_F32_CLUSTER.get(H, 8)
+        assert plan[1] == (H not in lstm_cuda.REC_FWD_MID_F32_FROM_L2)
+        assert plan[4] <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H,D", [(32, 1), (64, 2), (64, 3)])
@@ -790,20 +810,19 @@ def test_recurrence_fwd_mma_wrapper_takes_plain_version_on_cpu(H, D):
 
 def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
-    and bf16 names the forward, sweep and wgrad it named before the
-    tensor-core kernels past 288, except the bf16 forward and sweep there,
-    the f32 forward and sweep there (three tf32 passes), the bf16
-    forward at 32 and 64 (the tensor-core one with one block a row tile),
-    the f32 sweep from 96 to 288 and the bf16 forward and sweep there (the
-    tensor-core ones of those widths); what was refused stays refused."""
+    and bf16 names a tensor-core forward and sweep (f32 in three tf32
+    passes) and the wgrad it named before: at 32 and 64 the one-block
+    kernels, from 96 to 288 the kernels whose blocks hold their share of the
+    weight fragments, past 288 the ones reading them from L2; what was
+    refused stays refused."""
     def parent(H, dtype):
-        sweep = "lstm_recurrence_bwd"
-        if H in (32, 64):
-            sweep = "lstm_recurrence_bwd_mma" if dtype == torch.bfloat16 \
-                else "lstm_recurrence_bwd_f32"
         wgrad = "lstm_recurrence_wgrad_mma" if dtype == torch.bfloat16 \
             else "lstm_recurrence_wgrad"
-        return "lstm_recurrence_fwd", sweep, wgrad
+        if H in (32, 64):
+            return (("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma", wgrad)
+                    if dtype == torch.bfloat16 else
+                    ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32", wgrad))
+        return "lstm_recurrence_fwd_mid_f32", "lstm_recurrence_bwd_mid_f32", wgrad
 
     for dtype in (torch.float32, torch.bfloat16):
         for H in range(32, 1025):
@@ -819,10 +838,6 @@ def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
                 want = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma", want[2])
             if dtype == torch.float32 and H > 288:
                 want = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32", want[2])
-            if dtype == torch.bfloat16 and H in (32, 64):
-                want = ("lstm_recurrence_fwd_mma",) + want[1:]
-            if dtype == torch.float32 and 96 <= H <= 288:
-                want = (want[0], "lstm_recurrence_bwd_mid_f32", want[2])
             if dtype == torch.bfloat16 and 96 <= H <= 288:
                 want = ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma", want[2])
             assert tuple(f(H, dtype) for f in pick) == want, (H, dtype)
@@ -984,7 +999,7 @@ def test_recurrence_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     """The f32 tensor-core sweep past 288 takes the plain twin for CPU
     tensors, counting no launch, and refuses operands that require grad;
     ``lstm_recurrence_bwd`` hands f32 past 288 to it only on the card, and
-    reaches it by name (the cluster kernel by name too, on the CPU)."""
+    reaches it by name."""
     T, D, B, G, cd = 3, 2, 4, 2, torch.float32
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
                                                   "holes")
@@ -994,7 +1009,7 @@ def test_recurrence_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     args = (xg, valid, w, hs, cs, dhs, dhn, dcn, G, cd)
     want = recurrence_sweep(*args)
     assert torch.equal(lstm_cuda.lstm_recurrence_bwd_wide_f32(*args), want)
-    for kernel in (None, "lstm_recurrence_bwd_wide_f32", "lstm_recurrence_bwd"):
+    for kernel in (None, "lstm_recurrence_bwd_wide_f32"):
         assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args, kernel=kernel), want)
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -1514,7 +1529,8 @@ def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
     dxg = recurrence_sweep(*rargs)
     assert torch.equal(lstm_cuda.lstm_recurrence_bwd_f32(*rargs), dxg)
     assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs), dxg)
-    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs, kernel="lstm_recurrence_bwd"), dxg)
+    assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*rargs, kernel="lstm_recurrence_bwd_f32"),
+                       dxg)
     with pytest.raises(RuntimeError, match="no autograd graph"):
         lstm_cuda.lstm_recurrence_bwd_f32(xg, valid, w.clone().requires_grad_(), *rargs[3:])
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -2939,8 +2955,8 @@ def test_sweep_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny, f
 def test_recurrence_sweep_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, mask):
     """The tensor-core recurrence sweep against its plain twin in bf16:
     masks from lengths and with holes, D = 1, 2, 3, groups of 12, 10, 8, 9
-    and 13 rows, with and without ``dhs`` / ``dcn``; the cluster sweep asked
-    for by name agrees too."""
+    and 13 rows, with and without ``dhs`` / ``dcn``; the dispatcher
+    launches nothing of its own."""
     cd = torch.bfloat16
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device, mask,
                                                   seed=T + B)
@@ -2955,9 +2971,6 @@ def test_recurrence_sweep_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, 
     torch.cuda.synchronize()
     assert (lstm_cuda.lstm_recurrence_bwd.launches,
             lstm_cuda.lstm_recurrence_bwd_mma.launches) == (before[0], before[1] + 3)
-    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 3e-2)
-    torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_bwd.launches == before[0] + 1
 
 
 @pytest.mark.cuda
@@ -3491,9 +3504,6 @@ def test_recurrence_sweep_f32_matches_plain_on_card(cuda_device, H, G, B, D, T, 
     torch.cuda.synchronize()
     assert (lstm_cuda.lstm_recurrence_bwd.launches,
             lstm_cuda.lstm_recurrence_bwd_f32.launches) == (before[0], before[1] + 3)
-    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 1e-4)
-    torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_bwd.launches == before[0] + 1
 
 
 @pytest.mark.cuda
@@ -3802,8 +3812,9 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
     from lengths, with holes (an all-off and an all-on row) and all off;
     T = 1; groups of 8, 6, 9, 10, 80 and 81 rows, which leave short row
     tiles; the sweep with dhs and dcn None, and with all three None. The
-    dispatch names them (their wrappers count the launches), and the
-    cluster kernels asked for by name refuse past 288 units."""
+    dispatch names them (their wrappers count the launches); the cluster
+    forward and the bf16 sweep of 96-288 asked for by name refuse past 288
+    units."""
     cd, tol = torch.bfloat16, 2.0 ** -7
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                                   "holes" if mask == "off" else mask, seed=H + T)
@@ -3825,8 +3836,8 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
         _close([lstm_cuda.lstm_recurrence_bwd_wide_mma(*part)], [recurrence_sweep(*part)], tol)
     with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
         lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
-    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
-        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_mma and lstm_recurrence_fwd"):
+        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_mma")
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 3, 0, 0]
 
@@ -4013,7 +4024,7 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
     row tiles; up to 512 (32- or 16-row tiles) and past it (two unit groups
     a warp, 16-row tiles) to the stop at 1024; dhs, dhn and dcn None in
     turn. The dispatch names it (its wrapper counts the launches), and the
-    cluster sweep asked for by name refuses past 288 units."""
+    f32 sweep of 96-288 asked for by name refuses past 288 units."""
     cd, tol = torch.float32, 1e-4
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                                   "holes" if mask == "off" else mask, seed=H + T)
@@ -4030,8 +4041,8 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
                  (xg, valid, w, hs, cs, dhs, None, dcn, G, cd),
                  (xg, valid, w, hs, cs, None, None, None, G, cd)):
         _close([lstm_cuda.lstm_recurrence_bwd_wide_f32(*part)], [recurrence_sweep(*part)], tol)
-    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
-        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")
+    with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_f32 takes compute dtype"):
+        lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_f32")
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [4, 0]
 
@@ -4484,7 +4495,8 @@ def test_recurrence_fwd_wide_f32_rejects_bad_operands_on_card(cuda_device):
     """The f32 tensor-core forward past 288 refuses what its kernel does
     not take, before any launch: bf16, a width up to 288, a weight of the
     wrong dtype, a mask of the wrong shape, a fragment copy of the wrong
-    shape, an unknown kernel name, and operands that require grad."""
+    shape, an unknown kernel name, the f32 forward of H = 32 / 64 asked for
+    by name, and operands that require grad."""
     T, D, B, G, H = 3, 2, 4, 1, 320
     cd = torch.float32
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, "holes")
@@ -4502,6 +4514,8 @@ def test_recurrence_fwd_wide_f32_rejects_bad_operands_on_card(cuda_device):
     with pytest.raises(ValueError, match="wf must be a contiguous"):
         wrapper(xg, valid, w, G, cd, lstm_cuda.recurrence_f32_weights(small[2]))
     with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_tf32")
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_f32 kernel takes compute dtype"):
         lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd_f32")
     with pytest.raises(RuntimeError, match="no autograd graph"):
         wrapper(xg.clone().requires_grad_(), valid, w, G, cd)
@@ -5950,9 +5964,8 @@ def test_recurrence_mid_f32_smem_and_plan(H, rows, cluster, resident, want):
 
 @pytest.mark.parametrize("H", [96, 160, 288])
 def test_recurrence_mid_f32_wrapper_takes_plain_version_on_cpu(H):
-    """On the CPU the op's f32 sweep at 96-288, the dispatch and the
-    cluster sweep asked for by name run the plain twin bit for bit and
-    launch nothing, with the f32 fragment copy handed in or not; under grad
+    """On the CPU the op's f32 sweep at 96-288 and the dispatch, also by
+    the sweep's name, run the plain twin bit for bit and launch nothing, with the f32 fragment copy handed in or not; under grad
     mode an operand that requires grad is refused."""
     T, D, B, G, cd = 4, 2, 6, 2, torch.float32
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
@@ -5966,8 +5979,7 @@ def test_recurrence_mid_f32_wrapper_takes_plain_version_on_cpu(H):
     for got in (lstm_cuda.lstm_recurrence_bwd_mid_f32(*args),
                 lstm_cuda.lstm_recurrence_bwd_mid_f32(*args, wf=wf),
                 lstm_cuda.lstm_recurrence_bwd(*args),
-                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_f32"),
-                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")):
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_f32")):
         assert torch.equal(got, want)
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -6025,8 +6037,8 @@ def test_recurrence_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, mask)
     its run shape (400 rows in 5 groups, D = 2, T = 1500) and the same rows
     at 256, on the dispatch's plan (4-block clusters at 128, 8-block ones at
     256, the fragments resident): against the plain twin at 1e-4 x max(1,
-    max|ref|), the same bits twice; the cluster sweep asked for by name
-    agrees too."""
+    max|ref|), the same bits twice, from the forward's fragment copy and
+    from its own."""
     cd, G, B, T = torch.float32, 5, 400, 1500
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, 2, B, H, G, cd, cuda_device, mask, seed=H)
     hs, cs = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)[:2]
@@ -6036,10 +6048,10 @@ def test_recurrence_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, mask)
     got = lstm_cuda.lstm_recurrence_bwd(*args, wf=wf)
     assert torch.equal(lstm_cuda.lstm_recurrence_bwd(*args), got)
     _close([got], [want], 1e-4)
-    before = lstm_cuda.lstm_recurrence_bwd.launches
-    _close([lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")], [want], 1e-4)
+    before = lstm_cuda.lstm_recurrence_bwd_mid_f32.launches
+    _close([lstm_cuda.lstm_recurrence_bwd_mid_f32(*args)], [want], 1e-4)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_bwd.launches == before + 1
+    assert lstm_cuda.lstm_recurrence_bwd_mid_f32.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -6165,10 +6177,10 @@ def test_fwd_wide_f32_resident_edges_on_card(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dtype):
     """The two-layer model at embedding 128 on the recurrence backend: both
-    layers run the op at 128; in f32 its sweep is the tensor-core
-    ``lstm_recurrence_bwd_mid_f32.cu`` and its forward the cluster forward,
-    in bf16 its forward and sweep are the tensor-core
-    ``lstm_recurrence_{fwd,bwd}_mid_mma.cu``; the cluster sweep runs in
+    layers run the op at 128; in f32 its forward and sweep are the
+    tensor-core ``lstm_recurrence_{fwd,bwd}_mid_f32.cu`` (three tf32 passes,
+    one f32 fragment copy a layer for both), in bf16
+    ``lstm_recurrence_{fwd,bwd}_mid_mma.cu``; the cluster forward runs in
     neither. Its gradients equal the CPU plain path's (1e-4 x max(1,
     max|grad|) in f32, 2^-7 in bf16)."""
     from intrepppid_tpu_torch.ops import lstm
@@ -6176,14 +6188,19 @@ def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dty
     torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.setattr(lstm, "DEFAULT_BACKEND", "recurrence")
     f32 = dtype == torch.float32
-    wrappers = (lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd_mid_f32,
-                lstm_cuda.lstm_recurrence_bwd, lstm_cuda.lstm_recurrence_fwd_mid_mma,
-                lstm_cuda.lstm_recurrence_bwd_mid_mma)
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mid_f32, lstm_cuda.lstm_recurrence_bwd_mid_f32,
+                lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
+                lstm_cuda.lstm_recurrence_fwd_mid_mma, lstm_cuda.lstm_recurrence_bwd_mid_mma)
+    copies = []
+    weights = lstm_cuda.recurrence_f32_weights
+    monkeypatch.setattr(lstm_cuda, "recurrence_f32_weights",
+                        lambda w: copies.append(w.shape) or weights(w))
     before = [f.launches for f in wrappers]
     got = model_grads(cuda_device, dtype=dtype, embedding_size=128)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [
-        2 * f32, 2 * f32, 0, 2 * (not f32), 2 * (not f32)]
+        2 * f32, 2 * f32, 0, 0, 2 * (not f32), 2 * (not f32)]
+    assert len(copies) == 2 * f32  # one copy a layer, for the forward and the sweep
     want = model_grads(torch.device("cpu"), dtype=dtype, embedding_size=128)
     tol = 1e-4 if f32 else 2.0 ** -7
     for name, grad in got.items():
@@ -6263,8 +6280,7 @@ def test_recurrence_mid_mma_wrappers_take_plain_version_on_cpu(H):
     for got in (lstm_cuda.lstm_recurrence_bwd_mid_mma(*args),
                 lstm_cuda.lstm_recurrence_bwd_mid_mma(*args, wf=wf),
                 lstm_cuda.lstm_recurrence_bwd(*args, wf=wf),
-                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_mma"),
-                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd")):
+                lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_mma")):
         assert torch.equal(got, want)
     for got in (lstm_cuda.lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd),
                 lstm_cuda.lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd, wf=wf),
@@ -6282,13 +6298,17 @@ def test_recurrence_mid_mma_wrappers_take_plain_version_on_cpu(H):
 
 @pytest.mark.parametrize("H,dtype,copy", [
     (64, torch.bfloat16, None), (96, torch.bfloat16, "bf16"), (288, torch.bfloat16, "bf16"),
-    (320, torch.bfloat16, "bf16"), (96, torch.float32, None), (288, torch.float32, None),
-    (320, torch.float32, "f32")])
+    (320, torch.bfloat16, "bf16"),
+    # f32 at 96-288: the forward there reads the sweep's copy (ids kept)
+    pytest.param(96, torch.float32, "f32", id="96-dtype4-None"),
+    pytest.param(288, torch.float32, "f32", id="288-dtype5-None"),
+    (320, torch.float32, "f32"), (128, torch.float32, "f32"), (64, torch.float32, None),
+    (32, torch.float32, None)])
 def test_recurrence_fragments_by_width_and_dtype(H, dtype, copy):
     """The fragment copy ``FusedLSTMRecurrence`` builds once in the forward
-    and saves for the backward: the bf16 one wherever the bf16 forward runs
-    on a cluster kernel (96 and past), the f32 one past 288 in f32, none at
-    the widths whose kernels read ``w`` itself; bit for bit the copy the
+    and saves for the backward: wherever the forward runs on a cluster
+    kernel (96 and past), the bf16 one in bf16 and the f32 one in f32; none
+    at 32 and 64, whose kernels read ``w`` itself; bit for bit the copy the
     kernels' wrappers would build."""
     w = (torch.rand(2, 1, H, 4 * H, generator=torch.Generator().manual_seed(H)) - 0.5).to(dtype)
     got = lstm_cuda.recurrence_fragments(w, dtype)
@@ -6430,3 +6450,273 @@ def test_recurrence_mid_mma_refuses_on_card(cuda_device, monkeypatch):
              else fwd(xg, valid, w, 2, cd))
     torch.cuda.synchronize()
     assert [bwd.launches, fwd.launches] == before
+
+
+# ------------- the op's f32 tensor-core forwards (three tf32 passes), 32-288
+@pytest.mark.parametrize("H,want", [(32, 23840), (64, 46368)])
+def test_recurrence_fwd_f32_smem(H, want):
+    """The op's f32 forward at H = 32 / 64 (csrc/lstm_recurrence_fwd_f32.cu:
+    smem_bytes; its weights sit in registers, pre-split): two f32 h tiles (8
+    rows of H + 8) and five stages of the f32 xg tile (8 rows of 4H + 4) and
+    of 32 mask bytes; the launch cuts each weight group into 8-row tiles (50
+    at the train shape)."""
+    assert lstm_cuda.recurrence_fwd_f32_smem(H) == want == (
+        4 * (2 * 8 * (H + 8) + 5 * 8 * (4 * H + 4)) + 5 * 32)
+    assert want <= lstm_cuda.SMEM_LIMIT
+    assert lstm_cuda.REC_FWD_F32_STAGES == 5 and lstm_cuda.mma_tiles(400, 5) == 50
+
+
+@pytest.mark.parametrize("H,rows,cluster,resident,stages", [
+    (96, 16, 4, True, 5), (96, 32, 4, True, 5), (128, 32, 4, True, 5), (160, 32, 4, True, 3),
+    (192, 16, 4, True, 4), (128, 32, 8, True, 5), (224, 16, 8, True, 5), (256, 16, 8, True, 5),
+    (256, 32, 8, False, 5), (288, 32, 8, False, 5), (288, 16, 8, False, 5)])
+def test_recurrence_mid_f32_fwd_smem_and_plan(H, rows, cluster, resident, stages):
+    """The op's f32 forward at 96-288 (csrc/lstm_recurrence_fwd_mid_f32.cu:
+    smem_with / stages): with the fragments resident, the block's share (128
+    bytes a unit group and input for ceil(H / 8 / cluster) groups); two f32
+    h tiles (rows of H + 16), the staged new h (8 units a group + 4) and the
+    ring, each stage an f32 xg row (32 a group + 4) for every tile row and
+    48 mask bytes. An instance takes five stages, or as many as fit at its
+    widest width, at least three: 4-block clusters at 160 and 32 rows take
+    three, at 192 and 16 rows four; 32-row tiles fit neither there nor in
+    resident 8-block clusters past 192, and no resident instance fits 288.
+    At the train shape (400 rows in 5 groups, D = 2) the plan takes the
+    table's cluster size and fragment place (from L2 at 224-288) and the
+    fewest waves: 32-row tiles where they fit (one wave of 30 4-block
+    clusters, two of 15 8-block ones)."""
+    assert lstm_cuda.REC_FWD_MID_F32_FROM_L2 == (224, 256, 288)
+    groups = -(-H // (8 * cluster))
+    want = ((groups * H * 128 if resident else 0) + 2 * rows * (H + 16) * 4
+            + rows * (8 * groups + 4) * 4 + stages * (rows * (32 * groups + 4) * 4 + 48))
+    assert lstm_cuda.recurrence_mid_f32_smem(H, rows, cluster, resident, "fwd") == want
+    assert lstm_cuda.recurrence_mid_f32_fwd_stages(rows, cluster, groups, resident) == stages
+    assert want <= lstm_cuda.SMEM_LIMIT
+    plan = lstm_cuda.recurrence_mid_f32_plan(
+        400, 5, H, lambda c, r, R, smem: {4: 30, 8: 15}[c], kind="fwd")
+    cl = lstm_cuda.REC_FWD_MID_F32_CLUSTER.get(H, 8)
+    res = H not in lstm_cuda.REC_FWD_MID_F32_FROM_L2
+    fits32 = lstm_cuda.recurrence_mid_f32_fwd_stages(32, cl, -(-H // (8 * cl)), res) > 0
+    assert plan == (cl, res, 32 if fits32 else 16, lstm_cuda.mma_tiles(400, 5, 32 if fits32
+                                                                        else 16),
+                    lstm_cuda.recurrence_mid_f32_smem(H, 32 if fits32 else 16, cl, res, "fwd"))
+    for bad in ((192, 32, 4, True), (256, 32, 8, True), (224, 32, 8, True), (288, 16, 8, True),
+                (224, 16, 4, True), (H, 48, cluster, resident), (H, rows, 2, True),
+                (H, rows, 4, False)):
+        with pytest.raises(ValueError, match="lstm_recurrence_fwd_mid_f32: no instance"):
+            lstm_cuda.recurrence_mid_f32_smem(*bad, "fwd")
+    with pytest.raises(ValueError, match="as does lstm_recurrence_fwd_mid_f32"):
+        lstm_cuda.recurrence_mid_f32_smem(64, 16, 8, True, "fwd")
+
+
+@pytest.mark.parametrize("H", [32, 64, 96, 160, 288])
+def test_recurrence_fwd_f32_wrappers_take_plain_version_on_cpu(H):
+    """On the CPU the op's f32 forwards (at 32 / 64 and at 96-288) and the
+    dispatch, by each name and with the f32 fragment copy handed in or not,
+    run the plain twin bit for bit and launch nothing; under grad mode an
+    operand that requires grad is refused."""
+    T, D, B, G, cd = 5, 2, 6, 2, torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes",
+                                            seed=H)
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    name = "lstm_recurrence_fwd_f32" if H <= 64 else "lstm_recurrence_fwd_mid_f32"
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == name
+    wrapper = getattr(lstm_cuda, name)
+    wrappers = (wrapper, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    wf = lstm_cuda.recurrence_fragments(w, cd)
+    assert (wf is None) == (H <= 64)
+    calls = [wrapper(xg, valid, w, G, cd)] + [
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=k, wf=wf)
+        for k in (None, name, "lstm_recurrence_fwd")]
+    if wf is not None:
+        calls.append(wrapper(xg, valid, w, G, cd, wf=wf))
+    for got in calls:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        wrapper(xg.clone().requires_grad_(), valid, w, G, cd)
+    with torch.no_grad():
+        wrapper(xg, valid, w.clone().requires_grad_(), G, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["lengths", "holes"])
+@pytest.mark.parametrize("T", [24, 3, 1])
+@pytest.mark.parametrize("H,G,B,D", [(64, 5, 60, 2), (64, 1, 50, 2), (64, 2, 20, 1),
+                                     (64, 1, 9, 3), (32, 3, 24, 2), (32, 1, 13, 1),
+                                     (32, 5, 35, 3), (64, 5, 400, 2)])
+def test_recurrence_fwd_f32_matches_plain_on_card(cuda_device, H, G, B, D, T, mask):
+    """The op's f32 forward at H = 32 / 64 (three tf32 passes) against its
+    plain twin at 1e-4 x max(1, max|ref|): masks from lengths and with
+    holes, D = 1, 2 and 3, G = 1, 2, 3 and 5 (groups of 12, 50, 10, 9, 8, 13,
+    7 and 80 rows: a short last tile inside most groups), T = 1, 3 and 24;
+    the same bits twice. The dispatch hands ``lstm_recurrence_fwd`` to it
+    and its wrapper counts the launches; the cluster forward asked for by
+    name agrees too."""
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=T + B + H)
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_f32"
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_f32, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)
+    _close(got, want, 1e-4)
+    again = lstm_cuda.lstm_recurrence_fwd_f32(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
+           want, 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,mask", [(5, "lengths"), (5, "holes"), (1, "lengths")])
+def test_recurrence_fwd_f32_at_the_main_path_shape_on_card(cuda_device, G, mask):
+    """The f32 recurrence-backend step's forward at its run shape (400 rows,
+    D = 2, T = 1500, H = 64; 5 weight groups in layer 0, 1 in layer 1)
+    against the plain twin at 1e-4 x max(1, max|ref|)."""
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(1500, 2, 400, 64, G, cd, cuda_device, mask, seed=G)
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd),
+           recurrence_fwd(xg, valid, w, G, cd), 1e-4)
+
+
+@pytest.mark.cuda
+def test_recurrence_fwd_f32_refuses_on_card(cuda_device):
+    """The f32 forward at 32 / 64 refuses bf16 and the widths it does not
+    take, before any launch; a batch of no row launches nothing; the
+    dispatcher refuses an unknown kernel name (nothing falls back)."""
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(4, 2, 8, 64, 1, cd, cuda_device, "holes")
+    wrapper = lstm_cuda.lstm_recurrence_fwd_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_f32 kernel takes compute dtype"):
+        wrapper(xg, valid, w.to(torch.bfloat16), 1, torch.bfloat16)
+    wide = recurrence_case(4, 2, 8, 128, 1, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="lstm_recurrence_fwd_f32 kernel takes compute dtype"):
+        wrapper(wide[0], wide[1], wide[2], 1, cd)
+    cut = lambda t: t[:, :, :0].contiguous()  # noqa: E731
+    assert wrapper(cut(xg), cut(valid), w, 1, cd)[0].shape == (4, 2, 0, 64)
+    with pytest.raises(ValueError, match="no forward kernel named"):
+        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, 1, cd, kernel="fast")
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+def _fwd_mid_f32_instances():
+    """(H, blocks a cluster, resident, row tile) of every instance of the
+    op's f32 forward at 96-288."""
+    return [(H, c, r, rows) for (c, r), widths in lstm_cuda.REC_FWD_MID_F32_INSTANCES.items()
+            for H in widths for rows in lstm_cuda.REC_FWD_MID_F32_ROWS
+            if lstm_cuda.recurrence_mid_f32_fwd_stages(rows, c, -(-H // (8 * c)), r)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,T,mask", [(1, 30, 300, "lengths"), (5, 40, 300, "holes"),
+                                        (5, 65, 1, "lengths"), (3, 27, 7, "off")])
+@pytest.mark.parametrize("H,cluster,resident,rows", _fwd_mid_f32_instances())
+def test_recurrence_fwd_mid_f32_matches_plain_on_card(cuda_device, monkeypatch, H, cluster,
+                                                      resident, rows, G, B, T, mask):
+    """Every instance of the op's f32 forward at 96-288 (blocks a cluster,
+    fragments resident or read from L2, row tile; pinned with monkeypatch on
+    the plan's tables) against its plain twin at 1e-4 x max(1, max|ref|):
+    masks from lengths, with holes (an all-off and an all-on row) and all
+    off; T = 1, 7 and 300; groups of 30, 8, 13 and 9 rows, which leave short
+    row tiles; with the fragment copy handed in and built by the wrapper;
+    the same bits twice. Its wrapper counts the launches; the cluster
+    forward never launches."""
+    monkeypatch.setattr(lstm_cuda, "REC_FWD_MID_F32_CLUSTER", {H: cluster})
+    monkeypatch.setattr(lstm_cuda, "REC_FWD_MID_F32_FROM_L2", () if resident else (H,))
+    monkeypatch.setattr(lstm_cuda, "REC_FWD_MID_F32_ROWS", (rows,))
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(T, 2, B, H, G, cd, cuda_device,
+                                            "holes" if mask == "off" else mask,
+                                            seed=H + T + G)
+    if mask == "off":
+        valid = torch.zeros_like(valid)
+    assert lstm_cuda.recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mid_f32"
+    wrappers = (lstm_cuda.lstm_recurrence_fwd_mid_f32, lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    wf = lstm_cuda.recurrence_fragments(w, cd)
+    got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf)
+    again = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(got, recurrence_fwd(xg, valid, w, G, cd), 1e-4)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,mask", [(128, "lengths"), (128, "holes"), (256, "lengths"),
+                                    (96, "holes")])
+def test_recurrence_fwd_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, mask):
+    """The one-layer f32 model at embedding 128 on the recurrence backend at
+    its run shape (400 rows in 5 groups, D = 2, T = 1500), the same rows at
+    256 and at 96, on the dispatch's plan: against the plain twin at 1e-4 x
+    max(1, max|ref|), the same bits twice; the cluster forward asked for by
+    name agrees too."""
+    cd, G = torch.float32, 5
+    xg, valid, w, _, _, _ = recurrence_case(1500, 2, 400, H, G, cd, cuda_device, mask, seed=H)
+    want = recurrence_fwd(xg, valid, w, G, cd)
+    got = lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd)
+    assert all(torch.equal(a, b) for a, b in zip(got, lstm_cuda.lstm_recurrence_fwd(
+        xg, valid, w, G, cd, wf=lstm_cuda.recurrence_f32_weights(w))))
+    _close(got, want, 1e-4)
+    before = lstm_cuda.lstm_recurrence_fwd.launches
+    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
+           want, 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_recurrence_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_recurrence_fwd_mid_f32_refuses_on_card(cuda_device, monkeypatch):
+    """The op's f32 forward at 96-288 asked for by name refuses bf16, the
+    widths it does not take, a wrong fragment copy and a plan with no
+    instance, before any launch; a batch of no row launches nothing."""
+    cd = torch.float32
+    xg, valid, w, _, _, _ = recurrence_case(4, 2, 10, 128, 2, cd, cuda_device, "holes")
+    wrapper = lstm_cuda.lstm_recurrence_fwd_mid_f32
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="as does lstm_recurrence_fwd_mid_f32"):
+        wrapper(xg, valid, w.to(torch.bfloat16), 2, torch.bfloat16)
+    small = recurrence_case(4, 2, 10, 64, 2, cd, cuda_device, "holes")
+    with pytest.raises(ValueError, match="as does lstm_recurrence_fwd_mid_f32"):
+        wrapper(small[0], small[1], small[2], 2, cd)
+    with pytest.raises(ValueError, match="wf must be a contiguous"):
+        wrapper(xg, valid, w, 2, cd, wf=lstm_cuda.recurrence_mma_weights(w.to(torch.bfloat16)))
+    cut = lambda t: t[:, :, :0].contiguous()  # noqa: E731
+    assert wrapper(cut(xg), cut(valid), w, 2, cd)[0].shape == (4, 2, 0, 128)
+    monkeypatch.setattr(lstm_cuda, "REC_FWD_MID_F32_CLUSTER", {128: 2})
+    with pytest.raises(ValueError, match="no instance"):
+        wrapper(xg, valid, w, 2, cd)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedding", [64, 80])
+def test_recurrence_backend_f32_steps_on_card(cuda_device, monkeypatch, embedding):
+    """The f32 two-layer model on the recurrence backend at the manuscript
+    width (E = H = 64) and at embedding 80 (run at 96): its forward is the
+    f32 tensor-core forward of those widths (``lstm_recurrence_fwd_f32`` at
+    64, ``lstm_recurrence_fwd_mid_f32`` at 96), never the cluster forward;
+    its gradients equal the CPU plain path's (1e-4 x max(1, max|grad|))."""
+    from intrepppid_tpu_torch.ops import lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(lstm, "DEFAULT_BACKEND", "recurrence")
+    cd = torch.float32
+    Hp = lstm_cuda.recurrence_width(embedding, cd)
+    new = lstm_cuda.recurrence_fwd_kernel(Hp, cd)
+    assert new == ("lstm_recurrence_fwd_f32" if embedding == 64 else "lstm_recurrence_fwd_mid_f32")
+    wrappers = (getattr(lstm_cuda, new), lstm_cuda.lstm_recurrence_fwd)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=embedding)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=embedding)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
+            1.0, float(ref.abs().max())), name

@@ -514,9 +514,9 @@ def test_padded_width_and_route(E_parts, H, dtype, Hp, route):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recurrence_op_takes_every_width_to_256(dtype):
-    """The op's widths (past 256 on the cluster kernels' 288-thread
-    instance and the tensor-core kernels past 288): on the card every H up
-    to 1024 runs at the next multiple of 32 on hand kernels, and past 1024
+    """The op's widths (past 256 on the tensor-core kernels of 96-288 and
+    those past 288): on the card every H up to 1024 runs at the next
+    multiple of 32 on hand kernels, and past 1024
     the card's check raises, naming the limit; the CPU's plain twins take
     any H, unpadded past 1024."""
     hand = set(lstm_cuda._SIGNATURES)
@@ -524,7 +524,8 @@ def test_recurrence_op_takes_every_width_to_256(dtype):
         Hp = lstm_cuda.recurrence_width(H, dtype)
         assert Hp == max(32, -(-H // 32) * 32)
         assert {lstm_cuda.recurrence_sweep_kernel(Hp, dtype),
-                lstm_cuda.recurrence_wgrad_kernel(Hp, dtype), "lstm_recurrence_fwd"} <= hand
+                lstm_cuda.recurrence_wgrad_kernel(Hp, dtype),
+                lstm_cuda.recurrence_fwd_kernel(Hp, dtype)} <= hand
     for H in (1025, 1040, 4096):
         with pytest.raises(ValueError, match="H <= 1024 on the card"):
             lstm_cuda.recurrence_width(H, dtype)
