@@ -47,8 +47,10 @@ exits non-zero with no result):
    the 3xTF32 forward ``bilstm_fwd_f32`` (both variants, its 320-thread
    instance) in f32 and the tensor-core forward ``bilstm_fwd_mma`` (its
    <80, 80> instance, in turns with ``bilstm_fwd.cu`` by name) in bf16,
-   ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` (its last gate tile
-   masked) in bf16 (in turns with ``bilstm_wgrad.cu`` by name), the
+   ``bilstm_wgrad_f32`` (its 64 x 160 tile; each tile of
+   ``WGRAD_TILES_80`` pinned too) in f32 and ``bilstm_wgrad_mma`` (its last
+   gate tile masked) in bf16 (both in turns with ``bilstm_wgrad.cu`` by
+   name), the
    one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns with
    ``bilstm_bwd.cu`` by name) and the tensor-core sweep ``bilstm_bwd_mma``
    (its <80, 80> instance) in bf16; then
@@ -71,8 +73,11 @@ exits non-zero with no result):
    steps and an eval step of the two-layer model at embedding 80 in f32 and
    in bf16: layer 0's forward (both variants) ``bilstm_fwd_f32`` in f32
    and ``bilstm_fwd_mma`` in bf16 (``bilstm_fwd.cu`` never), its wgrad
-   ``bilstm_wgrad.cu`` in f32 and ``bilstm_wgrad_mma`` in bf16 (and
-   ``bilstm_wgrad.cu`` never), its sweep ``bilstm_bwd_f32_onestage`` in
+   ``bilstm_wgrad_f32``'s 64-row tile in f32 and ``bilstm_wgrad_mma`` in
+   bf16 (``bilstm_wgrad.cu`` never; in bf16 no ``dW_ih`` products either:
+   the stacked layer's weight gradients whole at 96), the f32 step in turns
+   with layer 0's wgrad pinned to ``bilstm_wgrad.cu`` (``turns``), its
+   sweep ``bilstm_bwd_f32_onestage`` in
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
    stacked layer padded to H = 96 on the wide route (the tensor-core
    gates, the one-block wide forward, ``bilstm_fwd_wide_f32_resident`` in
@@ -111,8 +116,18 @@ exits non-zero with no result):
    ``bilstm_fwd_mma`` (both variants, its <72, 72> instance, in turns with
    ``bilstm_fwd.cu`` by name), beside their bounds and cuDNN;
    ``bilstm_bwd.cu`` in bf16 on its main path (the stacked layer at
-   embedding 16, E = 16 + 16, H = 16) and ``bilstm_fwd.cu`` on its (layer
-   0 at embedding 56, E = H = 56), timed beside their bounds and cuDNN; the
+   embedding 16, E = 16 + 16, H = 16), timed beside its bounds and cuDNN;
+   the tensor-core forward's <56, 56> and <56, 112> instances on both
+   layers of the bf16 model at embedding 56 (``bilstm_fwd.cu``'s main path
+   before them), timed in turns with ``bilstm_fwd.cu`` by name, beside
+   their bounds and cuDNN; every instance of ``K8_FWD_SHAPES`` (``k8_fwd``:
+   both variants against the twin at 27 rows in 3 groups, T = 1 and 5, then
+   the train variant in turns with ``bilstm_fwd.cu`` by name at the train
+   shape; registers and spills) and the f32 wgrad's 64-row tile at each of
+   ``NARROW_WGRAD_SHAPES`` (``narrow_wgrad``: against the twin at T = 300
+   and at 27 rows, then in turns with ``bilstm_wgrad.cu`` by name at the
+   train shape, beside its bounds at 495/3 and 67 and cuBLAS f32; each
+   tile's registers, spills and blocks an SM); the
    bf16 two-layer model at embedding 72 at the train shape (2 steps and an
    eval step, timed: layer 0 on ``bilstm_fwd_mma`` and ``bilstm_bwd_mma``,
    the stacked layer on ``bilstm_bwd_lite_mma_resident``, never
@@ -140,14 +155,16 @@ exits non-zero with no result):
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
    112, (bf16) 272, (bf16) 72, whose layer 0 is the main path of the
    tensor-core forward's and sweep's <72, 72> instances, (bf16) 16, whose
-   stacked layer is ``bilstm_bwd.cu``'s, (bf16) 56, whose layers are
-   ``bilstm_fwd.cu``'s, and 160, whose layers run the f32 tensor-core
+   stacked layer is ``bilstm_bwd.cu``'s, (f32) 16, 48 and 80, whose
+   weight gradients are the f32 wgrad's 64-row tile's (``bilstm_wgrad.cu``
+   never), (bf16) 56, whose layers are the tensor-core forward's <56, 56>
+   and <56, 112> instances (``bilstm_fwd.cu`` never), and 160, whose layers
+   run the f32 tensor-core
    forward and lite sweep in f32, the bf16 tensor-core forward, lite
    sweep and split wgrad in bf16, and of the recurrence backend at
    embedding 80 (run at 96: the tensor-core
    ``lstm_recurrence_{fwd,bwd}_mid_f32`` in f32 and
-   ``lstm_recurrence_{fwd,bwd}_mid_mma`` in bf16, never the cluster
-   forward), each
+   ``lstm_recurrence_{fwd,bwd}_mid_mma`` in bf16), each
    with the kernels it must launch (and, where given, must not);
 6. wide_kernel — the wide route's kernels (input gates, the cluster
    forward in both variants, the lite sweep) and the weight-gradient
@@ -172,9 +189,11 @@ exits non-zero with no result):
    sweep at each of their row tiles;
    and the bf16 wide route's split weight gradient (``dW_ih`` on cuBLAS,
    ``dW_hh`` on ``bilstm_wgrad_mma`` with no input part) against its twin
-   at the train shape on the wide layers at 96, 160, 256 and 288, timed in
-   turns with the whole kernel (split, whole, whole, split) beside its two
-   parts alone, cuBLAS and the bounds (``wgrad_split``);
+   at the train shape on the wide layers at 96 (the stacked layers at
+   embedding 80 and 72: the whole kernel is the dispatch's there), 160,
+   256 and 288, timed in turns with the whole kernel (split, whole, whole,
+   split) beside its two parts alone, cuBLAS and the bounds
+   (``wgrad_split``);
 7. train_scaled — the scaled configuration (embedding 256, 3 layers,
    bf16, ``ranger21_xx``, 80 pairs, T = 1500, dropout on): 2 warm-up
    steps, 6 timed steps and one eval step, whose launches must go through
@@ -198,30 +217,25 @@ exits non-zero with no result):
    (``lstm_recurrence_{bwd,fwd}_mma`` in bf16,
    ``lstm_recurrence_{bwd,fwd}_f32`` in f32, three tf32 passes; each
    forward the same bits twice), and in bf16 the weight gradient
-   (``lstm_recurrence_wgrad_mma``) is too; the CUDA-core wgrad and, in
-   f32, the cluster forward, asked for by name, are held and timed beside
-   them (new, old, old, new; the cluster forward is not asked for by name
-   in bf16 there); ragged cases (27 rows in 3 groups, T = 1, 2 and 5, the
+   (``lstm_recurrence_wgrad_mma``) is too; the CUDA-core wgrad, asked for
+   by name, is held and timed beside it (new, old, old, new); ragged cases (27 rows in 3 groups, T = 1, 2 and 5, the
    forwards at D = 1-3); the op at H = 128, 5 groups, the shapes of its
    main paths (``op_h128``: the tensor-core sweep and forward,
    ``lstm_recurrence_{bwd,fwd}_mid_f32`` in f32, three tf32 passes, and
    ``lstm_recurrence_{bwd,fwd}_mid_mma`` in bf16, both masks, the same
-   bits twice, the forward in turns with the cluster forward by name); the
+   bits twice); the
    f32 sweep and forward at each width 96-288 (``mid_f32``: the sweep held
    against its twin at T = 300, each instance of the forward, by blocks a
    cluster, fragments resident or read from L2, and row tile, held against
    its twin at T = 300 (both masks) and 27 rows, twice; then each
-   instance of either timed in turns with the dispatch at T = 1500, the
-   forward's dispatch in turns with the cluster forward by name, with
+   instance of either timed in turns with the dispatch at T = 1500, with
    registers, spills, the clusters the card holds and cuDNN f32 at each
    width); the bf16 sweep and forward at each width 96-288 (``mid_mma``:
    each instance, by blocks a cluster and row tile, held against its twin
    at T = 300 with masks from lengths and with holes and computed twice
-   (the same bits), then timed in turns with the dispatch at T = 1500, the
-   forward's dispatch in turns with the cluster forward by name, cuDNN
-   bf16 at each width). At H = 256 the sweeps and forwards are the
-   tensor-core ones of 96-288 too, the forwards with the cluster forward by
-   name beside them. Each is timed
+   (the same bits), then timed in turns with the dispatch at T = 1500,
+   cuDNN bf16 at each width). At H = 256 the sweeps and forwards are the
+   tensor-core ones of 96-288 too. Each is timed
    with CUDA events beside its plain version and a PyTorch yardstick (one
    bidirectional ``nn.LSTM`` layer at full lengths, in f32 and bf16,
    which also does the input projection; for the weight
@@ -241,23 +255,20 @@ exits non-zero with no result):
    manuscript-width bf16 train step of phase 5 (2 warm-up and 4 timed
    steps, one eval step): ``lstm_recurrence_fwd_mma``,
    ``lstm_recurrence_bwd_mma`` and ``lstm_recurrence_wgrad_mma`` must be
-   > 0, the cluster forward, the CUDA-core wgrad and the layer
+   > 0, the other forwards and sweeps, the CUDA-core wgrad and the layer
    kernels 0; then 2 f32 steps (and a profiled one), whose forward, sweep
    and wgrad must be ``lstm_recurrence_fwd_f32``, ``lstm_recurrence_bwd_f32``
    and the CUDA-core wgrad alone, and 2 steps of a one-layer model at
    embedding 128, in f32 (its forward and sweep
    ``lstm_recurrence_{fwd,bwd}_mid_f32``) and in bf16 (its forward and sweep
-   ``lstm_recurrence_{fwd,bwd}_mid_mma``), never the cluster forward; the
-   f32 steps and both steps at 128 profiled on the dispatch and with the
-   forward pinned to the cluster forward, in turns (``turns``); a profiled
+   ``lstm_recurrence_{fwd,bwd}_mid_mma``), each profiled; a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
    one-layer model at embedding 320, timed, and the card's gradients of
    that model against the CPU's (in f32 the tensor-core forward and sweep
    past 288, three tf32 passes; in bf16 the tensor-core kernels past 288;
-   never the cluster forward, which takes up to 288 units; no layer
-   kernel);
+   no layer kernel);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
@@ -265,20 +276,24 @@ exits non-zero with no result):
     batch's 64 probabilities against the same command on the CPU, the
     f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
     stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (forty-one kernels, each with launches > 0 on
+11. the ``kernels`` line (thirty-eight kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
     the bf16 forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
     tensor-core forward at H = 64 as an entry of its own, and its f32 one
-    from the f32 recurrence-backend steps (the cluster forward by name
-    beside it, ``cluster_ms``);
-    ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16,
-    ``bilstm_fwd.cu`` from its, layer 0 at embedding 56 (by name at 80 and
-    72 beside it); the one-block f32 wide forward's main path f32 at 96; the
-    op's f32 sweep and forward at 96-288 from the f32 one-layer model at
-    embedding 128, and its bf16 sweep and forward from the bf16 one (the
-    cluster forward, on no path since, by name beside the forwards); the
+    from the f32 recurrence-backend steps;
+    ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16;
+    the bf16 forward's instances at embedding 56 as ``h56_*`` / ``h56s_*``
+    and the others that took shapes from ``bilstm_fwd.cu`` as ``k8_*``
+    fields of its entries, ``bilstm_fwd.cu`` by name beside them
+    (``cuda_core_ms``; it runs on no path); the f32 wgrad's 64-row tile at
+    embedding 80 as ``h80_*`` (its tiles, the step in turns) and at the other
+    f32 shapes as ``narrow_*`` fields of its entry, ``bilstm_wgrad.cu`` by
+    name beside them (on no path either); the one-block f32 wide forward's
+    main path f32 at 96; the op's f32 sweep and forward at 96-288 from the
+    f32 one-layer model at embedding 128, and its bf16 sweep and forward
+    from the bf16 one; the
     bf16 tensor-core forward at 160-224 as ``hN_*`` fields of its entries;
     the split bf16 weight gradient (``dW_hh`` on ``bilstm_wgrad_mma``,
     ``dW_ih`` on cuBLAS) as ``split_hN_*`` fields of ``bilstm_wgrad_mma``'s
@@ -327,6 +342,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
+# the bf16 resident shapes (H, E) the tensor-core forward took from
+# bilstm_fwd.cu: both layers of the models of 1-56 units (K = E + H ends in
+# a k8 step at five of them: 24 twice, 72, 120, 168)
+K8_FWD_SHAPES = ((8, 8), (8, 16), (16, 8), (24, 24), (24, 48), (40, 40), (40, 80), (48, 80),
+                 (48, 112), (56, 56), (56, 112))
+# the f32 layers (Hp, E parts) that took the 3xTF32 wgrad's 64-row tile
+# from bilstm_wgrad.cu, and the tiles timed against it at E = H = 80
+NARROW_WGRAD_SHAPES = ((16, (8,)), (16, (8, 8)), (16, (16,)), (16, (16, 16)), (48, (40,)),
+                       (48, (40, 40)), (48, (48,)), (48, (48, 48)), (80, (72,)), (80, (80,)))
+WGRAD_TILES_80 = ((64, 160), (128, 160), (64, 64), (128, 128))
 
 
 def emit(obj) -> None:
@@ -358,6 +383,7 @@ def phase_build() -> dict:
         REC_WIDE_MMA_ROWS,
         SMEM_LIMIT,
         WGRAD_F32_SMEM,
+        WGRAD_F32_TILES,
         WGRAD_MMA_SMEM,
         bwd_f32_onestage_plan,
         bwd_f32_plan,
@@ -366,7 +392,6 @@ def phase_build() -> dict:
         fwd_f32_plan,
         fwd_mma_plan,
         fwd_wide_f32_rows,
-        WIDE_ROWS,
         launch_plan,
         lite_f32_resident_plan,
         lite_mma_resident_plan,
@@ -378,6 +403,7 @@ def phase_build() -> dict:
         recurrence_mma_smem,
         recurrence_wide_f32_smem,
         recurrence_wide_mma_smem,
+        wgrad_f32_smem,
         wide_smem,
     )
 
@@ -414,12 +440,16 @@ def phase_build() -> dict:
     smem["bwd_lite_mma_resident bfloat16 H=96"] = lite_mma_resident_plan(96, torch.bfloat16)[1]
     for H in (80, 72):
         smem[f"fwd_mma (static) bfloat16 E=H={H}"] = fwd_mma_plan([H], H, torch.bfloat16)[1]
+    for H, E in K8_FWD_SHAPES:
+        smem[f"fwd_mma (static) bfloat16 H={H} E={E}"] = fwd_mma_plan([E], H, torch.bfloat16)[1]
     smem[f"recurrence_bwd_mma H={H_SERVE}"] = recurrence_mma_smem(H_SERVE)
     smem[f"recurrence_bwd_f32 H={H_SERVE}"] = recurrence_f32_smem(H_SERVE)
     for H in (32, H_SERVE):
         smem[f"recurrence_fwd_f32 H={H}"] = recurrence_fwd_f32_smem(H)
     smem["wgrad_mma"] = WGRAD_MMA_SMEM
     smem["wgrad_f32"] = WGRAD_F32_SMEM
+    for tile in WGRAD_F32_TILES:
+        smem[f"wgrad_f32 {tile[0]}x{tile[1]}"] = wgrad_f32_smem(tile)
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
     smem["gates_mma"] = GATES_MMA_SMEM
     for H in LITE_MMA_WIDTHS:
@@ -429,11 +459,6 @@ def phase_build() -> dict:
     for H in FWD_WIDE_MMA_WIDTHS:
         for rows in FWD_WIDE_MMA_ROWS:
             smem[f"fwd_wide_mma H={H} rows={rows}"] = wide_smem("fwd_mma", H, rows)
-    # the 288-thread instance of the CUDA-core cluster forward (the
-    # recurrence op's, by name only)
-    for R in WIDE_ROWS:
-        if wide_smem("fwd", 288, R) <= SMEM_LIMIT:
-            smem[f"fwd_wide H=288 R={R}"] = wide_smem("fwd", 288, R)
     for kind in ("fwd", "bwd"):
         for H in (320, 512, 1024):
             # the bf16 tensor-core kernels past 288, at each row tile they take
@@ -1182,29 +1207,35 @@ def embedding_80_kernels(dev) -> dict:
     rows, T = 1500), the main path of these kernels, in f32 and bf16: in
     f32 the forward (both variants) ``bilstm_fwd_f32.cu`` (its 320-thread
     instance, three tf32 passes), the sweep ``bilstm_bwd_f32_onestage.cu``
-    (three tf32 passes) and wgrad ``bilstm_wgrad.cu``; in bf16 the
-    tensor-core forward ``bilstm_fwd_mma.cu`` and sweep ``bilstm_bwd_mma.cu``
-    (their <80, 80> instances) and ``bilstm_wgrad_mma.cu`` (its last gate
-    tile masked: 4H = 320). Each is held against its plain twin with the
-    main path's lengths (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by
-    name too, in bf16 ``bilstm_wgrad.cu``; the bf16 forward the same bits
-    twice), then timed at full lengths beside the twin (timed once, in the
-    check), its bound (the f32 tensor-core kernels at 495/3 TFLOP/s, the
-    others at their dtype's rate), cuDNN's one-layer training forward,
-    inference forward and backward for the input in the same dtype, and
-    cuBLAS's products for wgrad, TF32 off; the f32 sweep in turns with
-    ``bilstm_bwd.cu`` by name and the bf16 wgrad with ``bilstm_wgrad.cu``
-    by name (new, old, old, new; ``bilstm_fwd.cu`` is no longer asked for
-    by name at E = H = 80). One dict per dtype and kernel: "fwd",
-    "fwd_eval", "bwd", "wgrad"."""
+    (three tf32 passes) and wgrad ``bilstm_wgrad_f32.cu`` (its 64 x 160
+    tile, three tf32 passes); in bf16 the tensor-core forward
+    ``bilstm_fwd_mma.cu`` and sweep ``bilstm_bwd_mma.cu`` (their <80, 80>
+    instances) and ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H =
+    320). Each is held against its plain twin with the main path's lengths
+    (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by name too, in both
+    dtypes ``bilstm_wgrad.cu``, in f32 the wgrad at each tile of
+    ``WGRAD_TILES_80`` too; the bf16 forward the same bits twice), then
+    timed at full lengths beside the twin (timed once, in the check), its
+    bound (the f32 tensor-core kernels at 495/3 TFLOP/s, the others at
+    their dtype's rate; the f32 wgrad's at 67 too), cuDNN's one-layer
+    training forward, inference forward and backward for the input in the
+    same dtype, and cuBLAS's products for wgrad, TF32 off; the f32 sweep in
+    turns with ``bilstm_bwd.cu`` by name and the wgrad with
+    ``bilstm_wgrad.cu`` by name (new, old, old, new; ``bilstm_fwd.cu`` is no
+    longer asked for by name at E = H = 80); in f32 each tile of
+    ``WGRAD_TILES_80`` pinned, in turns with ``bilstm_wgrad.cu`` by name,
+    with its splits and the blocks an SM the card holds. One dict per dtype
+    and kernel: "fwd", "fwd_eval", "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep, bidir_layer_wgrad
 
     E_parts, H, G, ny = [80], 80, G_TRAIN, 2
-    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad"),
+    picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad_f32"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad"}
+    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad",
+               ("wgrad", torch.float32): "bilstm_wgrad"}
+    wgrad_lib = L._kernels("bilstm_wgrad_f32")
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
     result = {}
@@ -1222,7 +1253,7 @@ def embedding_80_kernels(dev) -> dict:
         size = torch.empty((), dtype=cd).element_size()
         work = train_layer_work(sum(E_parts), H, size, ny)
         peaks = {"fwd": kernel_peak(cd, picked[cd][0]), "fwd_eval": kernel_peak(cd, picked[cd][0]),
-                 "bwd": kernel_peak(cd, picked[cd][1])}
+                 "bwd": kernel_peak(cd, picked[cd][1]), "wgrad": kernel_peak(cd, picked[cd][2])}
         for full in (False, True):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
                 E_parts, H, G, cd, dev, SEED + 30, full_lengths=full, ny=ny)
@@ -1251,6 +1282,23 @@ def embedding_80_kernels(dev) -> dict:
                         out[k]["ms"] = time_ms(call, 3)
                     add_bounds(out[k], {k: work[k]}, cd, peaks)
                 out["wgrad"]["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
+                if f32:
+                    out["wgrad"]["wgrad_bound_67_ms"], _ = bound(
+                        [(*work["wgrad"], PEAK_F32_FLOPS)])
+                    # each tile pinned, new, old, old, new with bilstm_wgrad.cu by name
+                    out["wgrad"]["tiles"] = {}
+                    for tile in WGRAD_TILES_80:
+                        a, b, c = in_turns(
+                            lambda: L.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, G, tile=tile),
+                            old["wgrad"], 3)
+                        m_t, n_t, splits = L.wgrad_f32_plan(T_TRAIN, B_TRAIN, G, E_parts, H,
+                                                            L._sm_count(dev), tile)
+                        out["wgrad"]["tiles"][f"{tile[0]}x{tile[1]}"] = {
+                            "ms": a, "ms_again": b, "cuda_core_ms": c, "splits": splits,
+                            "blocks": m_t * n_t * splits * 2 * G,
+                            "blocks_an_sm": wgrad_lib.bilstm_wgrad_f32_occupancy(*tile),
+                            "stages": L.wgrad_f32_stages(tile),
+                            "smem": L.wgrad_f32_smem(tile)}
             else:
                 want, out["fwd"]["plain_ms"] = timed_once(
                     lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
@@ -1281,11 +1329,17 @@ def embedding_80_kernels(dev) -> dict:
                     del ev, tr
                 out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                     flat(calls["bwd"]()), flat(ref)))
+                res["wgrad"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
+                                     zip(("dW_ih", "dW_hh"), old["wgrad"](), ref_w)})
+                out["wgrad"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
+                    calls["wgrad"](), ref_w))
+                if f32:
+                    for tile in WGRAD_TILES_80:
+                        res["wgrad"].update({
+                            f"tile_{tile[0]}x{tile[1]}_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(("dW_ih", "dW_hh"), L.bilstm_wgrad_f32(
+                                dgc, parts, hs_f, hs_b, G, tile=tile), ref_w)})
                 if not f32:
-                    res["wgrad"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
-                                         zip(("dW_ih", "dW_hh"), old["wgrad"](), ref_w)})
-                    out["wgrad"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
-                        calls["wgrad"](), ref_w))
                     for k in ("fwd", "fwd_eval"):
                         got_f = calls[k]()
                         res[k]["twice"] = (0.0, all(torch.equal(a, b)
@@ -1599,7 +1653,8 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # train steps: layer 0 (E = H = 80) is resident, its forward (both
     # variants) the 3xTF32 bilstm_fwd_f32.cu in f32 and the tensor-core
     # bilstm_fwd_mma.cu (its <80, 80> instance) in bf16, never bilstm_fwd.cu,
-    # its wgrad bilstm_wgrad.cu in f32 and bilstm_wgrad_mma.cu (the masked
+    # its wgrad bilstm_wgrad_f32.cu's 64-row tile in f32 (bilstm_wgrad.cu
+    # never) and bilstm_wgrad_mma.cu (the masked
     # gate tile) in bf16, its sweep the one-stage 3xTF32 kernel in f32 and
     # the tensor-core bilstm_bwd_mma.cu in bf16, never bilstm_bwd.cu; the
     # stacked layer (E = 2 x 80) runs padded to H = 96 on the wide route:
@@ -1607,19 +1662,20 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # one-block bilstm_fwd_wide_f32_resident.cu in f32, three tf32 passes,
     # and bilstm_fwd_wide_mma_resident.cu in bf16, never bilstm_fwd_wide.cu), and the
     # one-block lite sweep, in f32 the 3xTF32 bilstm_bwd_lite_f32_resident.cu
-    # and in bf16 bilstm_bwd_lite_mma_resident.cu (and in bf16 the stacked
-    # layer's dW_ih products on cuBLAS)
+    # and in bf16 bilstm_bwd_lite_mma_resident.cu; its weight gradients whole
+    # (in bf16 not split at 96: no dW_ih products on cuBLAS)
     e80_expect = {
         torch.float32: ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                         "bilstm_bwd_f32_onestage", "bilstm_gates_f32",
                         "bilstm_fwd_wide_train_f32_resident", "bilstm_fwd_wide_f32_resident",
-                        "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32", "bilstm_wgrad"),
+                        "bilstm_bwd_lite_f32_resident", "bilstm_wgrad_f32"),
         torch.bfloat16: ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                          "bilstm_gates_mma", "bilstm_fwd_wide_train_mma_resident",
                          "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident",
-                         "bilstm_wgrad_mma", "bilstm_wgrad_ih")}
+                         "bilstm_wgrad_mma")}
     e80_never = {
         torch.float32: ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad_ih",
+                        "bilstm_wgrad",
                         "bilstm_bwd", "bilstm_bwd_f32", "bilstm_bwd_mma", "bilstm_gates_mma",
                         "bilstm_wgrad_mma", "bilstm_fwd_wide_f32", "bilstm_fwd_wide_train_f32",
                         "bilstm_layer_fwd_mma", "bilstm_bwd_lite_mma", "bilstm_bwd_lite_f32",
@@ -1630,10 +1686,17 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
                          "bilstm_wgrad_f32", "bilstm_wgrad", "bilstm_layer_fwd_train",
                          "bilstm_layer_fwd", "bilstm_bwd_lite_mma",
                          "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_train_f32_resident",
-                         "bilstm_fwd_wide_f32_resident")}
+                         "bilstm_fwd_wide_f32_resident", "bilstm_wgrad_ih")}
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
         dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
         embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
+    # the f32 step at embedding 80 in turns with layer 0's wgrad pinned to
+    # bilstm_wgrad.cu (the dispatch before the 64-row tile)
+    e80["float32"]["turns"] = pinned_step_turns(
+        dev, batches, "wgrad_kernel", lambda keep: lambda E_parts, H, dtype: (
+            "bilstm_wgrad" if dtype == torch.float32 and H % 32 else keep(E_parts, H, dtype)),
+        {"wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel")}, dtype=torch.float32,
+        embedding_size=80)
     grad_check = train_grad_check(dev)
     grad_check_80 = {str(dtype).replace("torch.", ""): train_grad_check(
         dev, dtype=dtype, eval_step=True, expect=e80_expect[dtype], never=e80_never[dtype],
@@ -1814,24 +1877,28 @@ WIDE_CUDA_CORE = ("bilstm_wgrad",)
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
 # and sweep's <72, 72> instances, the stacked layer (run at 96) that of the
 # one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu and
-# bilstm_fwd.cu must not launch;
+# bilstm_fwd.cu must not launch, nor the dW_ih products (the stacked
+# layer's weight gradients are whole at 96);
 # at 16 in bf16 the stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's:
-# K = 48, which the tensor-core sweep does not take; at 56 in bf16 both
-# layers, E = 56 and 56 + 56, are bilstm_fwd.cu's, which the tensor-core
-# forward has no instance for; at 160 both layers run on the wide route at
+# K = 48, which the tensor-core sweep does not take; at 16 and 48 in f32
+# and at 80 in f32 (layer 0) the weight gradients are the 3xTF32 wgrad's
+# 64-row tile's, never bilstm_wgrad.cu's; at 56 in bf16 both layers, E =
+# 56 and 56 + 56, are the tensor-core forward's <56, 56> and <56, 112>
+# instances (the latter with a k8 tail), never bilstm_fwd.cu, whose main
+# path they were; at 48 in bf16 the stacked layer at parts of 56 is its
+# <48, 112> one; at 160 both layers run on the wide route at
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
 # (the dW_ih products must not launch), in bf16 the bf16 tensor-core
 # forward's and lite sweep's and the split wgrad's; on the recurrence
 # backend at 80 both layers run the op at 96: in f32 its forward and sweep
 # are the tensor-core lstm_recurrence_{fwd,bwd}_mid_f32.cu, in bf16
-# lstm_recurrence_{fwd,bwd}_mid_mma.cu, and the cluster forward must not
-# launch in either) and, where given, must not
+# lstm_recurrence_{fwd,bwd}_mid_mma.cu) and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
-                                  "bilstm_bwd_f32", "bilstm_wgrad")),
+                                  "bilstm_bwd_f32", "bilstm_wgrad_f32"), ("bilstm_wgrad",)),
     ("layer", 48, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_layer_fwd_train", "bilstm_layer_fwd",
-                                   "bilstm_bwd_mma", "bilstm_wgrad_mma")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"),
+     ("bilstm_layer_fwd_train", "bilstm_layer_fwd")),
     ("layer", 50, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad_f32")),
     ("layer", 50, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
@@ -1843,12 +1910,18 @@ WIDTH_STEPS = (
                                    "bilstm_bwd_mma", "bilstm_wgrad_mma",
                                    "bilstm_fwd_wide_train_mma_resident",
                                    "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident"),
-     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd")),
+     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad_ih")),
     ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma")),
-    ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd_mma",
-                                   "bilstm_wgrad_mma"),
-     ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd")),
+                                   "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma"),
+     ("bilstm_layer_fwd_train", "bilstm_layer_fwd")),
+    ("layer", 16, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
+                                  "bilstm_bwd_f32", "bilstm_wgrad_f32"), ("bilstm_wgrad",)),
+    ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"),
+     ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd")),
+    ("layer", 80, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
+                                  "bilstm_bwd_f32_onestage", "bilstm_wgrad_f32"),
+     ("bilstm_wgrad", "bilstm_layer_fwd_train", "bilstm_layer_fwd")),
     ("layer", 160, torch.float32, WIDE_F32, ("bilstm_wgrad_ih",)),
     ("layer", 160, torch.bfloat16, WIDE_BF16,
      ("bilstm_bwd_lite_f32", "bilstm_wgrad_f32", "bilstm_fwd_wide_mma_resident")),
@@ -2363,7 +2436,8 @@ def lite_f32_96(dev) -> dict:
     return row
 
 
-def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=False) -> dict:
+def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=False,
+                          fwd_by_name=False) -> dict:
     """The bf16 resident layer at ``E_parts``, ``H`` (``G`` weight groups,
     ``ny`` dy streams a direction, 400 rows) on a main path of its own: its
     sweep, which the dispatch must name ``sweep_want``, and with
@@ -2374,7 +2448,10 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
     (``cuda_core_bound_ms``: a CUDA-core kernel's at 67 TFLOP/s, its f32
     FMAs), the twin (timed once) and cuDNN's one-layer bf16 training
     forward, inference forward and backward for the input at the layer's
-    widths, TF32 off. One dict each: "bwd", and "fwd", "fwd_eval"."""
+    widths, TF32 off; with ``fwd_by_name`` the forward in turns with
+    ``bilstm_fwd.cu`` by name (new, old, old, new: ``cuda_core_ms``, its
+    bound ``cuda_core_bound_ms``), which is held against the twin too. One
+    dict each: "bwd", and "fwd", "fwd_eval"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
 
@@ -2401,9 +2478,15 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["bwd"] = lambda: L.bilstm_bwd(*args)
+        by_name = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
+                   "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")}
         if full:
             for k in out:
-                out[k]["ms"] = time_ms(calls[k], 3)
+                if fwd_by_name and k in by_name:
+                    out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
+                        calls[k], by_name[k], 3)
+                else:
+                    out[k]["ms"] = time_ms(calls[k], 3)
         else:
             ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
             gnames = sweep_names(*ref[:2])
@@ -2423,6 +2506,9 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
                     res[k]["twice"] = (0.0, all(torch.equal(a, b)
                                                 for a, b in zip(calls[k](), got_f)))
                     out[k]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got_f, want))
+                    if fwd_by_name:
+                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
+                                       zip(names, by_name[k](), want)})
                     del got_f
                 del want
             torch.cuda.synchronize()
@@ -2438,13 +2524,154 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
     for k in out:
         name = sweep_want if k == "bwd" else fwd_name
         out[k]["bound_ms"], out[k]["bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
-        if name in ("bilstm_fwd", "bilstm_bwd"):
+        if name in ("bilstm_fwd", "bilstm_bwd") or (fwd_by_name and k in ("fwd", "fwd_eval")):
             out[k]["cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
                    ("bwd", "cudnn_bwd_data_ms")):
         if k in out:
             out[k]["library_ms"] = lib[key]
+    return out
+
+
+def k8_fwd_instances(dev) -> dict:
+    """The bf16 tensor-core forward ``bilstm_fwd_mma.cu`` at each of
+    ``K8_FWD_SHAPES`` (one input part where E <= H, two of E / 2 where
+    E > H, as the models' stacked layers have), both variants: held against
+    the plain twin at 27 rows in 3 weight groups of 9 (a short tile in each
+    group), T = 1 and 5, lengths 0, 1, T and random, the second group's rows
+    ending at T // 3 at most (3e-2 x max(1, max|ref|); the same bits twice,
+    and ``bilstm_fwd.cu`` by name too); then the train variant at the train
+    shape (400 rows, T = 1500, full lengths; 5 groups where E <= H, 1 where
+    E > H) in turns with ``bilstm_fwd.cu`` by name (new, old, old, new),
+    beside its bound at the bf16 rate and ``bilstm_fwd.cu``'s at 67 TFLOP/s
+    (``cuda_core_bound_ms``, its f32 FMAs); each instance's registers and
+    spill-store bytes from the build's ``-Xptxas -v``."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+
+    cd, out = torch.bfloat16, {}
+    built = ptxas_instances("bilstm_fwd_mma", r"bilstm_fwd_mma_kernelILi(\d+)ELi(\d+)E")
+    names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
+    for H, E in K8_FWD_SHAPES:
+        E_parts = [E // 2] * 2 if E > H else [E]
+        if L.fwd_kernel(E_parts, H, cd) != "bilstm_fwd_mma":
+            raise AssertionError(f"the bf16 forward at H={H}, E={E_parts} is not bilstm_fwd_mma")
+        o = {"H": H, "E_parts": E_parts, "K": E + H, "k8_tail": (E + H) % 16 == 8,
+             "registers": built.get((H, E), (None, None))[0],
+             "spill_store_bytes": built.get((H, E), (None, None))[1],
+             "smem": L.fwd_mma_plan(E_parts, H, cd)[1], "threads": 4 * H,
+             "tol": f"{TOL[cd]} x max(1, max|ref|)", "max_abs_err": {}}
+        B, G = 27, 3
+        for T in (1, 5):
+            g = torch.Generator(device=dev).manual_seed(SEED + 300 + H + E + T)
+
+            def u(*shape, scale=1.0):
+                return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale
+
+            lengths = torch.randint(0, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+            lengths[:3] = torch.tensor([0, 1, T], dtype=torch.int32, device=dev)
+            lengths[9:18] = torch.clamp(lengths[9:18], max=T // 3)
+            parts = tuple(u(T, B, e).to(cd) for e in E_parts)
+            args = (parts, lengths, u(2, 4 * H, E, scale=H ** -0.5).to(cd),
+                    u(2, G, 4 * H, H, scale=H ** -0.5).to(cd), u(2, 4 * H), cd)
+            want = L.bilstm_layer_fwd_plain(*args, with_states=True)
+            got = L.bilstm_layer_fwd_train(*args)
+            ev = L.bilstm_layer_fwd(*args)
+            res = {f"T{T}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(names, got, want)}
+            res.update({f"T{T}_eval_{n}": rel_err(a, b, TOL[cd])
+                        for n, a, b in zip(names, ev, want)})
+            res.update({f"T{T}_cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
+                names, L.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want)})
+            res[f"T{T}_twice"] = (0.0, all(torch.equal(a, b) for a, b in zip(
+                L.bilstm_layer_fwd_train(*args), got)) and torch.equal(ev[0], got[0])
+                and torch.equal(ev[1], got[1]))
+            torch.cuda.synchronize()
+            o["max_abs_err"].update({n: e for n, (e, _) in res.items()})
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "widths", "failed": o})
+                raise AssertionError(f"bilstm_fwd_mma at H={H}, E={E_parts} disagrees: {o}")
+            del want, got, ev, args, parts
+        G = G_TRAIN if E <= H else 1
+        parts, lengths, w_ih, w_hh, bias, _, _, _, _ = train_layer_inputs(
+            E_parts, H, G, cd, dev, SEED + 400 + H + E, full_lengths=True, ny=1)
+        args = (parts, lengths, w_ih, w_hh, bias, cd)
+        o["ms"], o["ms_again"], o["cuda_core_ms"] = in_turns(
+            lambda: L.bilstm_layer_fwd_train(*args),
+            lambda: L.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), 3)
+        work = train_layer_work(E, H, 2, 1, G=G)["fwd"]
+        o["bound_ms"], o["bound_by"] = bound([(*work, kernel_peak(cd, "bilstm_fwd_mma"))])
+        o["cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
+        o.update({"B": B_TRAIN, "T": T_TRAIN, "G": G})
+        out[f"h{H}_e{E}"] = o
+        del parts, args
+    return out
+
+
+def narrow_wgrad_kernels(dev) -> dict:
+    """The f32 wgrad ``bilstm_wgrad_f32.cu`` at each of
+    ``NARROW_WGRAD_SHAPES`` (the f32 layers at H % 32 == 16, its 64-row
+    tile): held against the plain twin at T = 300, 400 rows (5 groups with
+    one input part, 1 with two) and at 27 rows in 3 groups, T = 5 (1e-4 x
+    max(1, max|ref|); ``bilstm_wgrad.cu`` by name too), then timed at
+    T = 1500 in turns with ``bilstm_wgrad.cu`` by name (new, old, old, new),
+    beside its bound at 495/3 TFLOP/s and at 67 (``bound_67_ms``; the
+    CUDA-core kernel's), cuBLAS f32's products, its tile, splits and the
+    blocks an SM the card holds; each tile instance's registers and
+    spill-store bytes from the build's ``-Xptxas -v``."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm import bidir_layer_wgrad
+
+    cd, out = torch.float32, {}
+    built = ptxas_instances("bilstm_wgrad_f32", r"bilstm_wgrad_f32_kernelILi(\d+)ELi(\d+)E")
+    lib = L._kernels("bilstm_wgrad_f32")
+    out["instances"] = {f"{tm}x{tn}": {"registers": r, "spill_store_bytes": sp,
+                                       "blocks_an_sm": lib.bilstm_wgrad_f32_occupancy(tm, tn)}
+                        for (tm, tn), (r, sp) in sorted(built.items())}
+    for H, E_parts in NARROW_WGRAD_SHAPES:
+        E_parts = list(E_parts)
+        E = sum(E_parts)
+        if L.wgrad_kernel(E_parts, H, cd) != "bilstm_wgrad_f32":
+            raise AssertionError(f"the f32 wgrad at H={H}, E={E_parts} is not bilstm_wgrad_f32")
+        G0 = G_TRAIN if len(E_parts) == 1 else 1
+        tile = L.wgrad_f32_tile(E_parts, H)
+        o = {"H": H, "E_parts": E_parts, "tile": f"{tile[0]}x{tile[1]}",
+             "tol": f"{TOL[cd]} x max(1, max|ref|)", "max_abs_err": {}}
+        for T, B, G in ((300, B_TRAIN, G0), (5, 27, 3 if G0 > 1 else 1), (T_TRAIN, B_TRAIN, G0)):
+            g = torch.Generator(device=dev).manual_seed(SEED + 500 + H + E + T)
+
+            def u(*shape):
+                return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+            parts = tuple(u(T, B, e) for e in E_parts)
+            hs_f, hs_b, dgc = u(T, B, H), u(T, B, H), u(2, T, B, 4 * H)
+            ops = (dgc, parts, hs_f, hs_b, G)
+            new = lambda: L.bilstm_wgrad(*ops)  # noqa: E731
+            old = lambda: L.bilstm_wgrad(*ops, kernel="bilstm_wgrad")  # noqa: E731
+            if T == T_TRAIN:
+                o["ms"], o["ms_again"], o["cuda_core_ms"] = in_turns(new, old, 3)
+                o["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
+                work = train_layer_work(E, H, 4, 2, G=G)["wgrad"]
+                o["bound_ms"], o["bound_by"] = bound([(*work, kernel_peak(cd, "bilstm_wgrad_f32"))])
+                o["bound_67_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
+                m_t, n_t, splits = L.wgrad_f32_plan(T, B, G, E_parts, H, L._sm_count(dev))
+                o.update({"B": B, "T": T, "G": G, "splits": splits,
+                          "blocks": m_t * n_t * splits * 2 * G})
+            else:
+                ref, plain_ms = timed_once(lambda: bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G))
+                if T == 300:
+                    o["plain_ms_T300"] = plain_ms
+                res = {f"T{T}_{n}": rel_err(a, b, TOL[cd])
+                       for n, a, b in zip(("dW_ih", "dW_hh"), new(), ref)}
+                res.update({f"T{T}_cuda_core_{n}": rel_err(a, b, TOL[cd])
+                            for n, a, b in zip(("dW_ih", "dW_hh"), old(), ref)})
+                torch.cuda.synchronize()
+                o["max_abs_err"].update({n: e for n, (e, _) in res.items()})
+                if not all(ok for _, ok in res.values()):
+                    emit({"phase": "widths", "failed": o})
+                    raise AssertionError(f"bilstm_wgrad_f32 at H={H}, E={E_parts} disagrees: {o}")
+                del ref
+            del parts, hs_f, hs_b, dgc
+        out[f"h{H}_e{'_'.join(map(str, E_parts))}"] = o
     return out
 
 
@@ -2507,10 +2734,15 @@ def phase_widths(dev) -> dict:
     bf16_72 = resident_bf16_kernels(dev, [72], 72, G_TRAIN, 2, SEED + 72, "bilstm_bwd_mma",
                                     forwards=True)
     bwd_16 = resident_bf16_kernels(dev, [16, 16], 16, 1, 1, SEED + 16, "bilstm_bwd")
-    # bilstm_fwd.cu's main path since the tensor-core forward took E = H =
-    # 80 and 72: layer 0 of the bf16 model at embedding 56
+    # both layers of the bf16 model at embedding 56, bilstm_fwd.cu's main
+    # path until the tensor-core forward's <56, 56> and <56, 112> instances
+    # took them: that forward, in turns with bilstm_fwd.cu by name
     fwd_56 = resident_bf16_kernels(dev, [56], 56, G_TRAIN, 2, SEED + 56, "bilstm_bwd_mma",
-                                   forwards=True)
+                                   forwards=True, fwd_by_name=True)
+    fwd_56_stacked = resident_bf16_kernels(dev, [56, 56], 56, 1, 1, SEED + 57, "bilstm_bwd_mma",
+                                           forwards=True, fwd_by_name=True)
+    k8_fwd = k8_fwd_instances(dev)
+    narrow_wgrad = narrow_wgrad_kernels(dev)
     # the bf16 model at embedding 72 at the train shape: layer 0 on the
     # tensor-core forward and sweep (bilstm_fwd.cu and bilstm_bwd.cu never),
     # the stacked layer wide at 96 on the one-block bf16 wide forward and
@@ -2520,7 +2752,8 @@ def phase_widths(dev) -> dict:
                        "bilstm_wgrad_mma", "bilstm_gates_mma",
                        "bilstm_fwd_wide_train_mma_resident", "bilstm_fwd_wide_mma_resident",
                        "bilstm_bwd_lite_mma_resident"),
-        ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad"),
+        ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad",
+         "bilstm_wgrad_ih"),
         eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
@@ -2551,6 +2784,7 @@ def phase_widths(dev) -> dict:
     out = {"phase": "widths", "padded_layers": layers, "models": models,
            "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96,
            "bf16_72": bf16_72, "bwd_16": bwd_16, "fwd_56": fwd_56,
+           "fwd_56_stacked": fwd_56_stacked, "k8_fwd": k8_fwd, "narrow_wgrad": narrow_wgrad,
            "kernels_288": kernels_288, "kernels_96": kernels_96,
            "kernels_96_float32": kernels_96_f32, "kernels_float32_wide": kernels_f32_wide,
            "kernels_bfloat16_wide": kernels_bf16_wide,
@@ -2956,6 +3190,9 @@ WGRAD_SPLIT_LAYERS = {
     "h160": ((([160], 160), G_TRAIN), (([160, 160], 160), 1)),
     "h288": ((([272], 272), G_TRAIN), (([272, 272], 272), 1)),
     "h96": ((([80, 80], 80), 1),),
+    # the stacked layer of the bf16 model at embedding 72, run at the same
+    # padded shape as embedding 80's (96, parts of 80)
+    "h96_e72": ((([72, 72], 72), 1),),
 }
 
 
@@ -3454,10 +3691,8 @@ def op_sweep_h128(dev, H=128) -> dict:
     passes), ``lstm_recurrence_{bwd,fwd}_mid_mma.cu`` in bf16. Masks from
     lengths and with holes, each held against its plain twin (timed once;
     1e-4 x max(1, max|ref|) in f32, 3e-2 in bf16) and computed twice (the
-    same bits); the sweep timed twice, the forward in turns with the cluster
-    forward ``lstm_recurrence_fwd.cu`` by name (new, old, old, new:
-    ``fwd_cluster_ms``; its bound at the dtype's CUDA-core or bf16 rate
-    beside it), each beside its bound (f32 at 495/3 TFLOP/s, bf16 at 989)
+    same bits); the sweep and the forward timed twice, each beside its
+    bound (f32 at 495/3 TFLOP/s, bf16 at 989)
     and cuDNN's one-layer training forward and backward for the input, TF32
     off."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -3498,17 +3733,12 @@ def op_sweep_h128(dev, H=128) -> dict:
             if mask == "lengths":
                 o["plain_ms"], o["fwd_plain_ms"] = plain_ms, fwd_plain_ms
                 o["ms"], o["ms_again"] = time_ms(new, 3), time_ms(new, 3)
-                # new, old, old, new: both forwards in one run, on one card
-                a, b, c = in_turns(new_fwd, lambda: L.lstm_recurrence_fwd(
-                    xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 3)
-                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = a, b, c
+                o["fwd_ms"], o["fwd_ms_again"] = time_ms(new_fwd, 3), time_ms(new_fwd, 3)
             else:
                 o["holes_ms"], o["fwd_holes_ms"] = time_ms(new, 3), time_ms(new_fwd, 3)
             del xg, valid, w, dhs, hs, cs, want, got, fgot, args
         work = {k: recurrence_work(T_TRAIN, H, G, size)[k] for k in ("fwd", "bwd")}
         add_bounds(o, work, cd, {"bwd": kernel_peak(cd, sweep), "fwd": kernel_peak(cd, fwd)})
-        o["fwd_cluster_bound_ms"], o["fwd_cluster_bound_by"] = bound(
-            [(*work["fwd"], kernel_peak(cd, "lstm_recurrence_fwd"))])
         o["fwd_library_ms"], o["library_ms"] = recurrence_library(T_TRAIN, H, dev, dtype=cd)
         out[dt] = o
     return out
@@ -3549,11 +3779,9 @@ def mid_f32_instances(dev) -> dict:
     27 rows in 3 groups (T = 5 and 1), to 1e-4 x max(1, max|ref|), each
     computed twice (the same bits). Then at T = 1500, masks from lengths,
     each instance of either kernel timed in turns with the dispatch
-    (instance, dispatch, dispatch, instance); the forward's dispatch in
-    turns with the cluster forward ``lstm_recurrence_fwd.cu`` by name
-    (``fwd_cluster_ms``); each beside its bound (at 495/3 TFLOP/s, or the
-    bytes at 3.35 TB/s where larger; the cluster forward's at 67), the
-    plain twins' time there (once each) and cuDNN f32's one bidirectional
+    (instance, dispatch, dispatch, instance); each beside its bound (at
+    495/3 TFLOP/s, or the bytes at 3.35 TB/s where larger), the plain twins'
+    time there (once each) and cuDNN f32's one bidirectional
     layer at that width, TF32 off (training forward and backward for the
     input); each instance's registers and
     spill bytes (the build's ``-Xptxas -v``), shared memory and the clusters
@@ -3651,15 +3879,7 @@ def mid_f32_instances(dev) -> dict:
                                          L.recurrence_mid_f32_plan(
                                              B_TRAIN, G, H, lambda c, r, R, m: count(
                                                  R, m, c, int(r)), dirs=D_REC, kind=kind)))
-            if kind == "fwd":
-                # new, old, old, new: the cluster forward by name beside it
-                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = in_turns(
-                    calls["fwd"], lambda: L.lstm_recurrence_fwd(
-                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 2)
-                o["fwd_cluster_bound_ms"], o["fwd_cluster_bound_by"] = bound(
-                    [(*work["fwd"], kernel_peak(cd, "lstm_recurrence_fwd"))])
-            else:
-                o["bwd_ms"] = time_ms(calls["bwd"], 3)
+            o[f"{kind}_ms"] = time_ms(calls[kind], 3)
             o[f"{kind}_bound_ms"], o[f"{kind}_bound_by"] = bound(
                 [(*work[kind], kernel_peak(cd, name))])
             for cluster, resident, rows, smem in instances(kind, H):
@@ -3688,8 +3908,7 @@ def mid_mma_instances(dev) -> dict:
     dispatch, dispatch, instance), and the dispatch beside its bytes bound,
     the plain twins' time there (once each), cuDNN bf16's one
     bidirectional layer at that width (training forward and
-    backward for the input) and, for the forward, the cluster forward by
-    name in turns (dispatch, cluster, cluster, dispatch); each instance's
+    backward for the input); each instance's
     registers and spill bytes (the build's ``-Xptxas -v``), shared memory
     and the clusters the card holds at once."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -3771,13 +3990,7 @@ def mid_mma_instances(dev) -> dict:
                                          L.recurrence_mid_mma_plan(
                                              kind, B_TRAIN, G, H,
                                              lambda c, R, m: count(R, m, c), dirs=D_REC)))
-            if kind == "fwd":
-                # new, old, old, new: the cluster forward by name beside it
-                o["fwd_ms"], o["fwd_ms_again"], o["fwd_cluster_ms"] = in_turns(
-                    calls["fwd"], lambda: L.lstm_recurrence_fwd(
-                        xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"), 2)
-            else:
-                o["bwd_ms"] = time_ms(calls["bwd"], 3)
+            o[f"{kind}_ms"] = time_ms(calls[kind], 3)
             o[f"{kind}_bound_ms"], o[f"{kind}_bound_by"] = bound(
                 [(*work[kind], kernel_peak(cd, name))])
             for cluster, rows in instances(kind, H):
@@ -4008,9 +4221,8 @@ def phase_recurrence_kernel(dev) -> dict:
                     T, H, G, dtype, dev, mask, SEED + 60 + i)
                 tol = TOL[dtype]
                 ref, fwd_plain_ms = timed_once(lambda: recurrence_fwd(xg, valid, w, G, dtype))
-                # the forward the dispatch picks, a tensor-core one (bf16 at
-                # H <= 64, where the cluster kernel is no longer asked for by
-                # name; f32 in three tf32 passes)
+                # the forward the dispatch picks, a tensor-core one (f32 in
+                # three tf32 passes)
                 fwd = L.recurrence_fwd_kernel(H, dtype)
                 got = L.lstm_recurrence_fwd(xg, valid, w, G, dtype)
                 res = {n: rel_err(a, b, tol)
@@ -4049,16 +4261,7 @@ def phase_recurrence_kernel(dev) -> dict:
                 t = {**shape, "bwd_ms": time_ms(lambda: L.lstm_recurrence_bwd(*args), 3),
                      "fwd_plain_ms": fwd_plain_ms, "bwd_plain_ms": bwd_plain_ms,
                      "wgrad_plain_ms": wgrad_plain_ms}
-                if fwd != "lstm_recurrence_fwd_mma":
-                    # new, old, old, new: the cluster forward by name beside it
-                    t["fwd_ms"], t["fwd_ms_again"], t["fwd_cluster_ms"] = in_turns(
-                        new_fwd, lambda: L.lstm_recurrence_fwd(
-                            xg, valid, w, G, dtype, kernel="lstm_recurrence_fwd"), 3)
-                    t["fwd_cluster_bound_ms"], t["fwd_cluster_bound_by"] = bound(
-                        [(*recurrence_work(T, H, G, size)["fwd"],
-                          kernel_peak(dtype, "lstm_recurrence_fwd"))])
-                else:
-                    t["fwd_ms"], t["fwd_ms_again"] = time_ms(new_fwd, 3), time_ms(new_fwd, 3)
+                t["fwd_ms"], t["fwd_ms_again"] = time_ms(new_fwd, 3), time_ms(new_fwd, 3)
                 new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
                 if wgrad == "lstm_recurrence_wgrad_mma":
                     # new, old, old, new: both wgrads in one run, on one card
@@ -4116,15 +4319,13 @@ def phase_recurrence_kernel(dev) -> dict:
     return out
 
 
-def cluster_step_turns(dev, batches, dtype=torch.bfloat16, **widths) -> dict:
-    """The train step in ``dtype`` on the recurrence backend (``widths`` as
-    the factory takes them), profiled on the dispatch and with the op's
-    forward pinned to the cluster kernel ``lstm_recurrence_fwd.cu`` wherever
-    it takes the width by name (to 288; in bf16 not at 32 / 64: the step
-    before its tensor-core successors there), in turns: dispatch, cluster,
-    cluster, dispatch, one step each, after a warm-up step of each. The
-    device time of each step (``profile_device``) and of the op's forward
-    and sweep in it."""
+def pinned_step_turns(dev, batches, name, pin, groups, dtype=torch.float32, **widths) -> dict:
+    """The train step in ``dtype`` (``widths`` as the factory takes them),
+    profiled on the dispatch and with the dispatch function
+    ``ops.lstm_cuda.<name>`` pinned (replaced by ``pin(real)``), in turns:
+    dispatch, pinned, pinned, dispatch, one step each, after a warm-up step
+    of each. The device time of each step (``profile_device``) and of the
+    kernel ``groups`` in it."""
     from intrepppid_tpu_torch.models.factory import intrepppid_network
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.train import Trainer
@@ -4132,31 +4333,29 @@ def cluster_step_turns(dev, batches, dtype=torch.bfloat16, **widths) -> dict:
     net = intrepppid_network(steps_per_epoch=100, compute_dtype=dtype,
                              optimizer_type="ranger21_xx", device=dev, seed=SEED, **widths)
     trainer = Trainer(net, seed=SEED)
-    groups = {"fwd": "lstm_recurrence_fwd", "sweep": "lstm_recurrence_bwd"}
-    keep = L.recurrence_fwd_kernel
+    keep = getattr(L, name)
 
     def step(pinned):
         if pinned:
-            L.recurrence_fwd_kernel = lambda H, cd: (
-                "lstm_recurrence_fwd" if H <= 288 and keep(H, cd) != "lstm_recurrence_fwd_mma"
-                else keep(H, cd))
+            setattr(L, name, pin(keep))
         try:
             return profile_device(lambda: trainer.train_step(batches[0])["loss"].item(),
                                   top=4, groups=groups)
         finally:
-            L.recurrence_fwd_kernel = keep
+            setattr(L, name, keep)
 
     step(False)
     step(True)
     runs = [step(p) for p in (False, True, True, False)]
-    pick = lambda rs, k: [r["device_ms_by_group"][k] for r in rs]  # noqa: E731
     new, old = (runs[0], runs[3]), (runs[1], runs[2])
-    return {"dtype": str(dtype).replace("torch.", ""), **widths,
-            "device_ms": [r["device_ms"] for r in new],
-            "cluster_device_ms": [r["device_ms"] for r in old],
-            "wall_ms": [r["wall_ms"] for r in new], "cluster_wall_ms": [r["wall_ms"] for r in old],
-            "fwd_ms": pick(new, "fwd"), "cluster_fwd_ms": pick(old, "fwd"),
-            "sweep_ms": pick(new, "sweep")}
+    out = {"dtype": str(dtype).replace("torch.", ""), **widths, "pinned": name,
+           "device_ms": [r["device_ms"] for r in new],
+           "pinned_device_ms": [r["device_ms"] for r in old],
+           "wall_ms": [r["wall_ms"] for r in new], "pinned_wall_ms": [r["wall_ms"] for r in old]}
+    for k in groups:
+        out[f"{k}_ms"] = [r["device_ms_by_group"][k] for r in new]
+        out[f"pinned_{k}_ms"] = [r["device_ms_by_group"][k] for r in old]
+    return out
 
 
 def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
@@ -4164,8 +4363,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     from intrepppid_tpu_torch.ops import lstm
     from intrepppid_tpu_torch.train import Trainer
 
-    # the bf16 step's kernels; everything else, the cluster forward among
-    # them, must stay at 0
+    # the bf16 step's kernels; everything else must stay at 0
     new = ("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma")
     lstm.DEFAULT_BACKEND = "recurrence"
     try:
@@ -4206,13 +4404,12 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         layer = [n for n, c in launches.items() if n not in new and c != 0]
         if missing or layer:
             raise AssertionError(
-                f"the recurrence-backend steps missed {missing} or ran the cluster forward, "
-                f"the CUDA-core wgrad or a layer kernel: {layer}")
+                f"the recurrence-backend steps missed {missing} or ran another forward or "
+                f"sweep, the CUDA-core wgrad or a layer kernel: {layer}")
         del trainer, net
         layer_kernels = tuple(n for n in train_counters() if n.startswith("bilstm_"))
         # the f32 steps at the manuscript width: the f32 tensor-core
-        # forward and sweep at 64 (three tf32 passes; the cluster forward
-        # must not launch) and the CUDA-core wgrad
+        # forward and sweep at 64 (three tf32 passes) and the CUDA-core wgrad
         f32 = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
                          "lstm_recurrence_wgrad"),
@@ -4221,12 +4418,10 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                          "lstm_recurrence_bwd", "lstm_recurrence_bwd_mid_f32",
                          "lstm_recurrence_fwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
                          "lstm_recurrence_bwd_mid_mma") + layer_kernels)
-        f32["turns"] = cluster_step_turns(dev, batches, dtype=torch.float32)
         # past 64 units a one-layer model at embedding 128: in f32 its
         # forward and sweep are the tensor-core
         # lstm_recurrence_{fwd,bwd}_mid_f32.cu, in bf16
-        # lstm_recurrence_{fwd,bwd}_mid_mma.cu (the cluster forward must not
-        # launch in either)
+        # lstm_recurrence_{fwd,bwd}_mid_mma.cu
         mid = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd_mid_f32", "lstm_recurrence_bwd_mid_f32",
                          "lstm_recurrence_wgrad"),
@@ -4236,8 +4431,6 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                          "lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma",
                          "lstm_recurrence_bwd_mid_mma") + layer_kernels,
                         embedding_size=128, rnn_num_layers=1)
-        mid["turns"] = cluster_step_turns(dev, batches, dtype=torch.float32, embedding_size=128,
-                                          rnn_num_layers=1)
         mid_bf16 = f32_steps(dev, batches,
                              ("lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma",
                               "lstm_recurrence_wgrad_mma"),
@@ -4247,8 +4440,6 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                               "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32",
                               "lstm_recurrence_fwd_mid_f32") + layer_kernels,
                              dtype=torch.bfloat16, embedding_size=128, rnn_num_layers=1)
-        mid_bf16["turns"] = cluster_step_turns(dev, batches, embedding_size=128,
-                                               rnn_num_layers=1)
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -4258,9 +4449,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
     # f32 model at embedding 320 at the train shape (2 steps and an eval
     # step, timed) on the f32 tensor-core forward and sweep; its gradients
     # and those of the bf16 model against the CPU's: in f32 the forward and
-    # sweep in three tf32 passes, in bf16 the tensor-core kernels past 288,
-    # never the cluster kernels (which take up to 288 units); no layer
-    # kernel in either
+    # sweep in three tf32 passes, in bf16 the tensor-core kernels past 288;
+    # no layer kernel in either
     old = ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_mma",
            "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
            "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_fwd_f32",
@@ -4526,6 +4716,46 @@ def main() -> int:
                               "new); library: cuBLAS f32 products, TF32 off; h256_*: layer 0 "
                               "(E=256, 5 groups) + one E=2x256 layer at H=256, T=1500, its "
                               "launches in the f32 gradient step at the scaled widths")
+            # its 64-row tile: layer 0 of the f32 model at embedding 80 (E = H =
+            # 80), bilstm_wgrad.cu's main path until this tile took it, and
+            # the other f32 layers at H % 32 == 16
+            h80, nw = e80["float32"]["wgrad"], widths["narrow_wgrad"]
+            entry.update({f"h80_{k}": h80[k] for k in (
+                "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
+                "library_ms", "scaled_err", "tiles")})
+            entry.update({
+                "h80_bound_ms": h80["wgrad_bound_ms"], "h80_bound_by": h80["wgrad_bound_by"],
+                "h80_bound_67_ms": h80["wgrad_bound_67_ms"],
+                "h80_launches": e80_launches["float32"][name],
+                "h80_grad_check_launches": next(
+                    c for c in widths["grad_checks"] if c["backend"] == "layer"
+                    and c.get("embedding_size") == 80)["launches"].get(name, 0),
+                "h80_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
+                                       if not n.startswith(("cuda_core_", "tile_"))),
+                "h80_tiles_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
+                                             if n.startswith("tile_")),
+                "h80_step_turns": train["steps_embedding_80"]["float32"]["turns"],
+                "narrow_instances": nw["instances"],
+                **{f"narrow_{k}": {s_: o[k] for s_, o in nw.items() if s_ != "instances"}
+                   for k in ("ms", "ms_again", "cuda_core_ms", "bound_ms", "bound_67_ms",
+                             "library_ms", "tile", "splits", "blocks")},
+                "narrow_max_abs_err": max(v for s_, o in nw.items() if s_ != "instances"
+                                          for n, v in o["max_abs_err"].items()
+                                          if "cuda_core" not in n)})
+            if min(entry["h80_launches"], entry["h80_grad_check_launches"]) <= 0:
+                raise AssertionError("the f32 model at embedding 80 never ran bilstm_wgrad_f32")
+            entry["work"] += ("; h80_*: its 64 x 160 tile on layer 0 of the f32 two-layer model "
+                              "at embedding 80 (E=H=80, 5 groups), 400 rows, T=1500, launches "
+                              "in that model's steps (both layers), cuda_core_ms: "
+                              "bilstm_wgrad.cu by name in turns (its bound cuda_core_bound_ms "
+                              "at 67), h80_bound_67_ms: this work at 67 TFLOP/s, h80_tiles: "
+                              "each tile pinned in turns with bilstm_wgrad.cu, "
+                              "h80_step_turns: the model's f32 step profiled on the dispatch "
+                              "and with this layer's wgrad pinned to bilstm_wgrad.cu (dispatch, "
+                              "pinned, pinned, dispatch); narrow_*: each f32 layer shape at "
+                              "H % 32 == 16 at the train shape in turns with bilstm_wgrad.cu "
+                              "(library: cuBLAS f32), narrow_instances: each tile's registers, "
+                              "spills and blocks an SM")
         kernels.append(entry)
     # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
     # same operands, in turns (new, old, old, new), is a yardstick there
@@ -4555,40 +4785,11 @@ def main() -> int:
                 "against the f32 tolerance 1e-4; library: cuDNN nn.LSTM backward (input) in "
                 "f32, TF32 off",
     })
-    # the CUDA-core forward (both variants): its main path since the
-    # tensor-core forward took E = H = 80 and 72 is the bf16 model at
-    # embedding 56 (both layers; layer 0 timed), in its gradient and eval
-    # step (no longer asked for by name at 80 and 72)
-    f56 = widths["fwd_56"]
-    g56 = next(c for c in widths["grad_checks"]
-               if c["backend"] == "layer" and c.get("embedding_size") == 56)
-    for key, name, library in (("fwd_eval", "bilstm_layer_fwd", "inference"),
-                               ("fwd", "bilstm_layer_fwd_train", "training forward")):
-        e = f56[key]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "intrepppid_tpu_torch/csrc/bilstm_fwd.cu",
-            "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:285",
-            "launches": g56["launches"].get(name, 0),
-            "max_abs_err": max(e["max_abs_err"].values()),
-            **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "cuda_core_bound_ms",
-                                 "library_ms", "scaled_err")},
-            "work": "layer 0 of the bf16 two-layer model at embedding 56 (E=H=56, 5 groups, two "
-                    "dy streams a direction), 400 rows, T=1500; launches: that model's gradient "
-                    "and eval step (both layers: E=56 and 56+56); bound at the bf16 rate "
-                    "(cuda_core_bound_ms at 67 TFLOP/s, its f32 FMAs); library: cuDNN one-layer "
-                    f"nn.LSTM {library} in bf16 at E=H=56, TF32 off",
-        })
-        if kernels[-1]["launches"] <= 0:
-            raise AssertionError(f"the bf16 model at embedding 56 never ran {name}")
-    # wgrad and the one-stage sweep at their main path's shapes: layer 0 of
-    # the f32 two-layer model at embedding 80 (its train steps and an eval
-    # step)
-    library = {"bwd": "cuDNN one-layer nn.LSTM backward (input)", "wgrad": "cuBLAS products"}
+    # the one-stage sweep at its main path's shapes: layer 0 of the f32
+    # two-layer model at embedding 80 (its train steps and an eval step)
+    library = {"bwd": "cuDNN one-layer nn.LSTM backward (input)"}
     for key, name, source, dtype in (
         ("bwd", "bilstm_bwd_f32_onestage", "bilstm_bwd_f32_onestage.cu", "float32"),
-        ("wgrad", "bilstm_wgrad", "bilstm_wgrad.cu", "float32"),
     ):
         e = e80[dtype][key]
         entry = {
@@ -4608,28 +4809,18 @@ def main() -> int:
                     f"two dy streams a direction), 400 rows, T=1500; library: {library[key]} in "
                     f"{dtype}, TF32 off",
         }
-        if name == "bilstm_bwd_f32_onestage":
-            ragged = [c for c in tk["ragged_checks"] if c["kernel"] == name]
-            entry.update({
-                "max_abs_err": max([entry["max_abs_err"]] + [max(c["max_abs_err"].values())
-                                                             for c in ragged]),
-                "ms_again": e["ms_again"], "cuda_core_ms": e["cuda_core_ms"],
-                "cuda_core_bound_ms": e["cuda_core_bound_ms"], "scaled_err": e["scaled_err"],
-                "cuda_core_max_abs_err": max(v for n, v in e["max_abs_err"].items()
-                                             if n.startswith("cuda_core_"))})
-            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
-                              "bilstm_bwd.cu by name on the same operands (new, old, old, new), "
-                              "its bound cuda_core_bound_ms at 67 TFLOP/s; max_abs_err also over "
-                              "the ragged cases (27 rows, 3 groups, T = 1 and 5)")
-        else:
-            # bf16 at embedding 80 takes bilstm_wgrad_mma; this kernel there by name
-            o = e80["bfloat16"][key]
-            entry.update({"bfloat16_by_name_ms": o["cuda_core_ms"],
-                          "bfloat16_by_name_max_abs_err": max(
-                              v for n, v in o["max_abs_err"].items()
-                              if n.startswith("cuda_core_"))})
-            entry["work"] += ("; bfloat16_by_name_*: this kernel asked for by name on the bf16 "
-                              "layer's operands, in turns with bilstm_wgrad_mma")
+        ragged = [c for c in tk["ragged_checks"] if c["kernel"] == name]
+        entry.update({
+            "max_abs_err": max([entry["max_abs_err"]] + [max(c["max_abs_err"].values())
+                                                         for c in ragged]),
+            "ms_again": e["ms_again"], "cuda_core_ms": e["cuda_core_ms"],
+            "cuda_core_bound_ms": e["cuda_core_bound_ms"], "scaled_err": e["scaled_err"],
+            "cuda_core_max_abs_err": max(v for n, v in e["max_abs_err"].items()
+                                         if n.startswith("cuda_core_"))})
+        entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
+                          "bilstm_bwd.cu by name on the same operands (new, old, old, new), "
+                          "its bound cuda_core_bound_ms at 67 TFLOP/s; max_abs_err also over "
+                          "the ragged cases (27 rows, 3 groups, T = 1 and 5)")
         if entry["launches"] <= 0:
             raise AssertionError(f"the {dtype} model at embedding 80 never ran {name}")
         kernels.append(entry)
@@ -4768,6 +4959,41 @@ def main() -> int:
                               "of the bf16 two-layer models at embedding 80 and 72 (E=H, 5 "
                               "groups), 400 rows, T=1500, launches in those models' steps, "
                               "library: cuDNN one-layer bf16")
+            # its <56, 56> and <56, 112> instances (the latter with a k8
+            # tail): both layers of the bf16 model at embedding 56,
+            # bilstm_fwd.cu's main path until they took it, in turns with
+            # bilstm_fwd.cu by name
+            g56 = next(c for c in widths["grad_checks"]
+                       if c["backend"] == "layer" and c.get("embedding_size") == 56)
+            for tag, o in (("h56", widths["fwd_56"][key]),
+                           ("h56s", widths["fwd_56_stacked"][key])):
+                entry.update({f"{tag}_{k}": o[k] for k in (
+                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "scaled_err")})
+                entry[f"{tag}_max_abs_err"] = max(v for n, v in o["max_abs_err"].items()
+                                                  if not n.startswith("cuda_core_"))
+            entry["h56_launches"] = g56["launches"].get(name, 0)
+            if entry["h56_launches"] <= 0:
+                raise AssertionError(f"the bf16 model at embedding 56 never ran {name}")
+            entry["work"] += ("; h56_* / h56s_*: its <56, 56> and <56, 112> instances on both "
+                              "layers of the bf16 two-layer model at embedding 56 (E=56, 5 "
+                              "groups; E=56+56, 1 group), 400 rows, T=1500, cuda_core_ms: "
+                              "bilstm_fwd.cu by name in turns (new, old, old, new; its bound "
+                              "cuda_core_bound_ms at 67), h56_launches: that model's gradient "
+                              "and eval step, library: cuDNN one-layer bf16")
+            if key == "fwd":
+                k8 = widths["k8_fwd"]
+                entry.update({f"k8_{k}": {s_: o[k] for s_, o in k8.items()} for k in (
+                    "ms", "ms_again", "cuda_core_ms", "bound_ms", "cuda_core_bound_ms",
+                    "registers", "spill_store_bytes", "k8_tail")})
+                entry["k8_max_abs_err"] = max(v for o in k8.values()
+                                              for n, v in o["max_abs_err"].items()
+                                              if "cuda_core" not in n)
+                entry["work"] += ("; k8_*: each instance that took a shape from bilstm_fwd.cu "
+                                  "(keys hH_eE), the train variant at 400 rows, T=1500, in "
+                                  "turns with bilstm_fwd.cu by name, its registers and spills; "
+                                  "k8_max_abs_err over both variants at 27 rows in 3 groups, "
+                                  "T = 1 and 5")
         else:
             # the scaled step's shapes: layer 0 and one E = 2 x 256 layer at H = 256
             entry.update({f"h256_{k}": w16[f"wgrad_{k}"]
@@ -5229,7 +5455,7 @@ def main() -> int:
     rec_launches = {n: rpath["float32_steps"]["launches"][n]
                     for n in ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
                               "lstm_recurrence_wgrad")}
-    f32_turns = rpath["float32_steps"]["turns"]
+    f32_step = rpath["float32_steps"]["step_profile"]
     for key, name, replaces in (("fwd", "lstm_recurrence_fwd_f32", "lstm_pallas.py:116"),
                                 ("bwd", "lstm_recurrence_bwd_f32", "lstm_pallas.py:185"),
                                 ("wgrad", "lstm_recurrence_wgrad", "lstm_pallas.py:185")):
@@ -5278,25 +5504,16 @@ def main() -> int:
         if key == "fwd":
             entry.update({
                 "ms_again": sum(t["fwd_ms_again"] for t in step),
-                "cluster_ms": sum(t["fwd_cluster_ms"] for t in step),
-                "cluster_bound_ms": sum(t["fwd_cluster_bound_ms"] for t in step),
-                "g5_ms": step[0]["fwd_ms"], "g5_cluster_ms": step[0]["fwd_cluster_ms"],
+                "g5_ms": step[0]["fwd_ms"],
                 "g5_bound_ms": step[0]["fwd_bound_ms"],
                 "g5_library_ms": step[0]["fwd_library_ms"],
                 **{f"h32_{k}": h32f[f"fwd_{k}"] for k in (
-                    "ms", "ms_again", "cluster_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")},
-                "step_device_ms": f32_turns["device_ms"],
-                "step_cluster_device_ms": f32_turns["cluster_device_ms"],
-                "step_kernel_ms": f32_turns["fwd_ms"],
-                "step_cluster_kernel_ms": f32_turns["cluster_fwd_ms"]})
-            entry["work"] += ("; bound at 495/3 TFLOP/s or the bytes (three tf32 passes; "
-                              "cluster_bound_ms: the cluster forward's, at 67); cluster_ms: "
-                              "lstm_recurrence_fwd.cu by name on the same operands (new, old, "
-                              "old, new); g5_*: layer 0 (5 groups) alone; h32_*: H=32, 5 "
-                              "groups, T=300; step_*: the f32 step profiled on the dispatch and "
-                              "with the forward pinned to the cluster kernel (dispatch, "
-                              "cluster, cluster, dispatch); max_abs_err also over 27 rows in 3 "
+                    "ms", "ms_again", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "step_device_ms": f32_step["device_ms"],
+                "step_kernel_ms": f32_step["device_ms_by_group"]["fwd"]})
+            entry["work"] += ("; bound at 495/3 TFLOP/s or the bytes (three tf32 passes); g5_*: "
+                              "layer 0 (5 groups) alone; h32_*: H=32, 5 groups, T=300; step_*: "
+                              "the f32 step profiled; max_abs_err also over 27 rows in 3 "
                               "groups, T = 1 and 5, D = 1-3")
         kernels.append(entry)
     # the op's f32 sweep and forward at 96-288 units, the tensor-core
@@ -5307,7 +5524,7 @@ def main() -> int:
     h512f = rk["past_288"]["h512"]["float32"]
     h256 = {t["dtype"]: t for t in rk["timings"]
             if t["H"] == E_SCALED and t["mask"] == "lengths"}
-    mid_turns = rpath["float32_steps_embedding_128"]["turns"]
+    mid_step = rpath["float32_steps_embedding_128"]["step_profile"]
     for key, name, replaces, errs in (
             ("bwd", "lstm_recurrence_bwd_mid_f32", "lstm_pallas.py:185", ("dxg",)),
             ("fwd", "lstm_recurrence_fwd_mid_f32", "lstm_pallas.py:116",
@@ -5344,8 +5561,8 @@ def main() -> int:
             "widths_plain_ms": {k: m[f"{key}_plain_ms"] for k, m in mid.items()},
             "widths_library_ms": {k: m[f"{key}_library_ms"] for k, m in mid.items()},
             "widths_plan": {k: m[f"{key}_plan"] for k, m in mid.items()},
-            "step_device_ms": mid_turns["device_ms"],
-            "step_kernel_ms": mid_turns["sweep_ms" if key == "bwd" else "fwd_ms"],
+            "step_device_ms": mid_step["device_ms"],
+            "step_kernel_ms": mid_step["device_ms_by_group"]["sweep" if key == "bwd" else "fwd"],
             "work": "the layer of the f32 recurrence-backend model at embedding 128 (5 weight "
                     "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
                     "holes); bound at 495/3 TFLOP/s or the bytes at 3.35 TB/s; library: cuDNN "
@@ -5358,23 +5575,11 @@ def main() -> int:
                     "over both masks at 128, 96-288 at T=300 (the forward: every instance, "
                     "and 27 rows at T=1 and 5), 256 and 288",
         }
-        if key == "fwd":
-            entry.update({
-                "cluster_ms": o["fwd_cluster_ms"], "cluster_bound_ms": o["fwd_cluster_bound_ms"],
-                "h256_cluster_ms": h["fwd_cluster_ms"],
-                "widths_cluster_ms": {k: m["fwd_cluster_ms"] for k, m in mid.items()},
-                "step_cluster_device_ms": mid_turns["cluster_device_ms"],
-                "step_cluster_kernel_ms": mid_turns["cluster_fwd_ms"]})
-            entry["work"] += ("; cluster_ms: lstm_recurrence_fwd.cu by name in turns (new, old, "
-                              "old, new), cluster_bound_ms its bound at 67; step_cluster_*: the "
-                              "same step with the forward pinned to the cluster kernel, in "
-                              "turns")
         kernels.append(entry)
     # the op's bf16 sweep and forward at 96-288: the tensor-core
-    # lstm_recurrence_{bwd,fwd}_mid_mma.cu, the forward in turns with the
-    # cluster forward by name
+    # lstm_recurrence_{bwd,fwd}_mid_mma.cu
     o, mm = o128["bfloat16"], rk["mid_mma"]
-    turns = rpath["bfloat16_steps_embedding_128"]["turns"]
+    turns = rpath["bfloat16_steps_embedding_128"]["step_profile"]
     for key, name, replaces, errs in (
             ("bwd", "lstm_recurrence_bwd_mid_mma", "lstm_pallas.py:185", ("dxg",)),
             ("fwd", "lstm_recurrence_fwd_mid_mma", "lstm_pallas.py:116",
@@ -5410,7 +5615,7 @@ def main() -> int:
             "widths_plain_ms": {k: m[f"{key}_plain_ms"] for k, m in mm.items()},
             "widths_library_ms": {k: m[f"{key}_library_ms"] for k, m in mm.items()},
             "step_device_ms": turns["device_ms"],
-            "step_kernel_ms": turns["sweep_ms" if key == "bwd" else "fwd_ms"],
+            "step_kernel_ms": turns["device_ms_by_group"]["sweep" if key == "bwd" else "fwd"],
             "work": "the layer of the bf16 recurrence-backend model at embedding 128 (5 weight "
                     "groups), D=2, 400 rows, T=1500, H=128, masks from lengths (holes_ms: with "
                     "holes); bound: bytes at 3.35 TB/s; library: cuDNN bf16 one-layer nn.LSTM "
@@ -5423,16 +5628,6 @@ def main() -> int:
                     "both masks at 128 and 256, every instance at 96-288 (T=300 and 27 rows at "
                     "T=1 and 5)",
         }
-        if key == "fwd":
-            entry.update({
-                "cluster_ms": o["fwd_cluster_ms"], "h256_cluster_ms": h["fwd_cluster_ms"],
-                "widths_cluster_ms": {k: m["fwd_cluster_ms"] for k, m in mm.items()},
-                "step_cluster_device_ms": turns["cluster_device_ms"],
-                "step_cluster_kernel_ms": turns["cluster_fwd_ms"]})
-            entry["work"] += ("; cluster_ms: lstm_recurrence_fwd.cu by name in turns (new, old, "
-                              "old, new); step_cluster_*: the same step with the forward "
-                              "pinned to the cluster kernel (dispatch, cluster, cluster, "
-                              "dispatch)")
         kernels.append(entry)
     step16 = [t for t in rk["timings"] if t["dtype"] == "bfloat16" and t["mask"] == "lengths"
               and t["H"] == H_SERVE and t["T"] == T_TRAIN]
@@ -5460,8 +5655,7 @@ def main() -> int:
         "g5_bound_ms": step16[0]["fwd_bound_ms"], "g5_library_ms": step16[0]["fwd_library_ms"],
         "g5_holes_ms": holes16[0]["fwd_ms"],
         "work": "both layers of one recurrence-backend step (5 weight groups + 1), bf16 "
-                "compute dtype, D=2, 400 rows, T=1500, H=64, masks from lengths (the cluster "
-                "forward is no longer asked for by name there); "
+                "compute dtype, D=2, 400 rows, T=1500, H=64, masks from lengths; "
                 "library: cuDNN nn.LSTM training forward in bf16, which also does the input "
                 "projection; g5_*: layer 0 (5 groups) alone, g5_holes_*: the same with a mask "
                 "with holes; max_abs_err also over 27 rows in 3 groups, T = 1 and 5, D = 1-3",
@@ -5599,7 +5793,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 41 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 38 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

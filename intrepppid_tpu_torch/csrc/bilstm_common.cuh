@@ -1,18 +1,15 @@
 // Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
-// bilstm_wgrad.cu, lstm_recurrence_fwd.cu, lstm_recurrence_wgrad.cu, and,
-// with bilstm_mma.cuh, the tensor-core kernels, bilstm_bwd_lite_mma.cu and
-// bilstm_fwd_wide_mma.cu among them on
-// the wide kernels' cluster launch and barriers): compute-dtype
-// conversions, 16-byte stream chunks widened to f32 in shared memory, the
-// per-unit four-gate product over weights resident in shared memory, and
-// the launch dispatch and barriers of the wide (cluster) kernels.
+// bilstm_wgrad.cu, lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the
+// tensor-core kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu
+// among them on the wide kernels' cluster launch and barriers):
+// compute-dtype conversions, 16-byte stream chunks widened to f32 in shared
+// memory, the per-unit four-gate product over weights resident in shared
+// memory, and the launch and barriers of the wide (cluster) kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace bilstm {
 
@@ -125,50 +122,12 @@ __device__ __forceinline__ void load8(float (&v)[8], const __nv_bfloat16* p) {
   }
 }
 
-// The CUDA-core cluster kernel (lstm_recurrence_fwd.cu) splits one row
-// tile's hidden units over a cluster of kWideCluster blocks of H threads
-// (H <= kWideMaxThreads); each thread owns one unit for R rows, with R one
-// of kWideRows. Each kernel is instantiated for blocks of at most
-// kWideSmallThreads threads (H <= 256: the register budget of 255 a thread
-// it had before wider blocks) and, where a route takes H = 257 to 288 in
-// that dtype, of at most kWideMaxThreads (224 registers a thread). kRecMaxH
-// is the recurrence op's widest H on the card (its tensor-core kernels
-// past 288).
+// The wide kernels' clusters are kWideCluster blocks; kWideMaxThreads is
+// the widest H a layer route takes (past it the recurrence op's
+// tensor-core kernels), kRecMaxH the recurrence op's widest H on the card.
 constexpr int kWideCluster = 8;
-constexpr int kWideSmallThreads = 256;
 constexpr int kWideMaxThreads = 288;
 constexpr int kRecMaxH = 1024;
-constexpr int kWideRowsMask = (1 << 2) | (1 << 4) | (1 << 7) | (1 << 10);
-
-// Call f(std::integral_constant<int, R>, T{}, std::integral_constant<int,
-// kThreads>) for dtype code (0: float, 1: bfloat16), R in kWideRows and the
-// block instance kThreads that takes H threads: kWideSmallThreads, or
-// kWideMaxThreads up to the dtype's widest H (kMaxF32, kMaxBf16: the
-// kernel's instances); cudaErrorInvalidValue for anything else.
-template <int kMaxF32 = kWideMaxThreads, int kMaxBf16 = kWideMaxThreads, typename F>
-int dispatch_wide(int dtype, int rows, int H, F&& f) {
-  auto by_threads = [&](auto r, auto t) -> int {
-    constexpr int kMax = std::is_same<decltype(t), float>::value ? kMaxF32 : kMaxBf16;
-    if (H <= 0) return (int)cudaErrorInvalidValue;
-    if (H <= kWideSmallThreads) return f(r, t, std::integral_constant<int, kWideSmallThreads>{});
-    if constexpr (kMax > kWideSmallThreads) {
-      if (H <= kWideMaxThreads) return f(r, t, std::integral_constant<int, kWideMaxThreads>{});
-    }
-    return (int)cudaErrorInvalidValue;
-  };
-  auto by_rows = [&](auto t) -> int {
-    switch (rows) {
-      case 2: return by_threads(std::integral_constant<int, 2>{}, t);
-      case 4: return by_threads(std::integral_constant<int, 4>{}, t);
-      case 7: return by_threads(std::integral_constant<int, 7>{}, t);
-      case 10: return by_threads(std::integral_constant<int, 10>{}, t);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  };
-  if (dtype == 0) return by_rows(float{});
-  if (dtype == 1) return by_rows(__nv_bfloat16{});
-  return (int)cudaErrorInvalidValue;
-}
 
 // Launch `kernel` over grid (tiles * kWideCluster, dirs) in clusters of
 // kWideCluster blocks along x, `threads` threads each (H for the CUDA-core
@@ -207,15 +166,6 @@ template <typename... Params, typename... Args>
 int launch_wide(void (*kernel)(Params...), int tiles, int threads, int smem, cudaStream_t stream,
                 int* max_clusters, Args... args) {
   return launch_wide_dirs(kernel, tiles, 2, threads, smem, stream, max_clusters, args...);
-}
-
-// A cluster barrier without release / acquire ordering: enough where it
-// only has to keep a block from writing shared memory that another block
-// of the cluster may still be reading (the reads have returned, since
-// their values were used), and cheaper than cluster.sync().
-__device__ __forceinline__ void cluster_sync_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\tbarrier.cluster.wait.aligned;"
-               ::: "memory");
 }
 
 // The two halves of a cluster barrier with release / acquire ordering:

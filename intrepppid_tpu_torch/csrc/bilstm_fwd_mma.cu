@@ -1,9 +1,7 @@
-// Bidirectional LSTM layer forward, bf16 compute dtype, H <= 64 and
-// E = H = 72, 80: the tensor-core variant, hand-written for Hopper (sm_90a).
+// Bidirectional LSTM layer forward, bf16 compute dtype, the resident
+// shapes: the tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_fwd_f32.cu (f32) and bilstm_fwd.cu (which keeps the
-// bf16 shapes this kernel is not instantiated for), the
-// TPU kernels
+// Replaces, like bilstm_fwd_f32.cu (f32), the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _fwd_kernel_packed (via
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states
 //     False (eval variant) and True (train variant, which also emits the
@@ -11,6 +9,8 @@
 //   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas,
 //     :376) -- the same function at the other resident widths, layer 0 of
 //     the two-layer models at embedding 72 and 80 among them.
+// bilstm_fwd.cu (CUDA cores) is reached by name only in bf16: this kernel
+// is instantiated at every bf16 resident shape a layer runs at.
 // f32 at these widths goes to bilstm_fwd_f32.cu, in three tf32 passes: one
 // pass, with tf32's 10-bit mantissa, breaks the serve path's 1e-4
 // agreement with the plain forward.
@@ -51,26 +51,27 @@
 //   * a tile stops at its longest row: past it the forward direction's
 //     state is frozen (its final h and c are written there), and the
 //     reverse direction has not started (zeros).
-// At E = H = 80 and 72 (layer 0 of the two-layer models at embedding 80
-// and 72; ops/lstm_cuda.py:fwd_mma_plan takes them only where bilstm_fwd.cu
-// took them, so no layer changes its route or padded shape) three things
-// differ from the widths up to 64:
-//   * threads: one warp per 8 units is 4H = 320 and 288 threads, past the
-//     256 of the smaller instances. Each instance's __launch_bounds__ is its
-//     own block (4H threads, one block an SM), so the 320-thread one may
-//     take 204 registers a thread and the others keep 255. The weights' A
-//     fragments are 2 m16 tiles x K/16 x 4 = 80 registers at K = 160 and 72
-//     at K = 144 (the -Xptxas -v summary of the build reports registers and
-//     spills);
-//   * the K tail at 72: E + H = 144 is nine k16 steps, not a whole number
-//     of 32. The product steps k16 natively (four ldmatrix.x4 rounds and
-//     one ldmatrix.x2 step), where bilstm_bwd_mma.cu runs K to 160 over
-//     zero columns: here the weights sit in registers, so a zero k16 step
-//     would cost 8 registers and one mma a step for nothing, and the [x ;
-//     h] rows stay 144 + 8 wide (304 bytes: ldmatrix stays conflict-free);
-//   * the grid: 400 rows in 5 groups of 80 are 50 tiles, 100 blocks with
-//     both directions, one wave on 132 SMs; the three-stage ring and its one
-//     barrier a step are unchanged (8 x (K + 8) x 2 x 3 = 8,064 bytes at 80).
+// Each instance's __launch_bounds__ is its own block, 4H threads, one block
+// an SM: the <80, 80> instance's 320 threads may take 204 registers a
+// thread, the others 255; at H = 8 a block is one warp. The weights' A
+// fragments are 2 m16 tiles x 4 registers a k16 step (80 at K = 160; the
+// -Xptxas -v summary of the build reports registers and spills). Where
+// E + H is not a whole number of 32 the product steps the rest natively:
+//   * K % 32 == 16 (E = H = 72: nine k16 steps): four ldmatrix.x4 rounds
+//     and one ldmatrix.x2 step, where bilstm_bwd_mma.cu runs K to the next
+//     32 over zero columns: here the weights sit in registers, so a zero
+//     k16 step would cost 8 registers and one mma a step for nothing;
+//   * K % 16 == 8 (H % 16 == 8, and H = 48 at E = 80 or 112: K = 24, 72,
+//     120, 168): the k16 steps, then one mma.sync m16n8k8 step on two A
+//     registers an m16 tile and one ldmatrix.x1 of the B tile (4 registers
+//     for the tail, not the 8 of a zero-padded k16 step: 84 at K = 168);
+//   * the [x ; h] rows are padded so their stride is an odd number of 16
+//     bytes, which keeps ldmatrix free of bank conflicts: K + 8 where
+//     K % 16 == 0, K + 16 where K % 16 == 8 (K + 8 there would be an even
+//     number: 176 elements at K = 168).
+// The grid: 400 rows in 5 groups of 80 are 50 tiles, 100 blocks with both
+// directions, one wave on 132 SMs; the three-stage ring is 8 x (K + pad) x
+// 2 x 3 bytes (8,064 at K = 160, 8,832 at K = 168).
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -83,7 +84,28 @@ typedef __nv_bfloat16 bf16;
 constexpr int kStages = 3;
 constexpr int kMaxChunks = 2;   // 16-byte x chunks each thread copies per step
 constexpr int kMaxThreads = 320;  // the <80, 80> instance: one warp per 8 units
-constexpr int kPad = 8;         // bf16 elements of padding on every shared row
+constexpr int kPad = 8;         // bf16 elements of padding on a shared row at K % 16 == 0
+constexpr int kTailPad = 16;    // and at K % 16 == 8
+// the [x ; h] row stride: an odd number of 16-byte units (conflict-free ldmatrix)
+__host__ __device__ constexpr int row_stride(int K) { return K + (K % 16 ? kTailPad : kPad); }
+
+// One 8x8 b16 matrix (lanes 0-7 give the row addresses).
+__device__ __forceinline__ void ldmatrix_x1(uint32_t& r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];"
+               : "=r"(r)
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16x8 f32) += a (16x8 bf16: a0 rows g, a1 rows g + 8, columns 2t, 2t + 1)
+// . b (8x8 bf16: rows 2t, 2t + 1 of column g): the k8 tail of the product.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
 
 // Two 8x8 b16 matrices (lanes 0-15 give the row addresses).
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
@@ -110,10 +132,13 @@ struct Args {
 // grid (tiles, 2), block 32 * H / 8 threads.
 template <int H, int E>
 __global__ void __launch_bounds__(4 * H, 1) bilstm_fwd_mma_kernel(const Args a) {
-  constexpr int H4 = 4 * H, K = E + H, KS = K + kPad, NK = K / 16;
-  static_assert(H % 8 == 0 && 4 * H <= kMaxThreads && E % 8 == 0 && K % 16 == 0 &&
+  // NK whole k16 steps, then a k8 tail where K % 16 == 8
+  constexpr int H4 = 4 * H, K = E + H, KS = row_stride(K), NK = K / 16;
+  constexpr bool kTail = K % 16 != 0;
+  static_assert(H % 8 == 0 && 4 * H <= kMaxThreads && E % 8 == 0 &&
                     kMmaTile * E / 8 <= kMaxChunks * 4 * H,
                 "unsupported shape");
+  static_assert((KS / 8) % 2 == 1, "row stride an odd number of 16-byte units");
   const int tile = blockIdx.x, d = blockIdx.y, T = a.T, B = a.B;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -174,8 +199,9 @@ __global__ void __launch_bounds__(4 * H, 1) bilstm_fwd_mma_kernel(const Args a) 
 
   // the weights' A fragments: m16 tile mt of warp w is permuted rows
   // 32w + 16mt .. +15, i.e. gates 2mt (rows g) and 2mt + 1 (rows g + 8) of
-  // unit 8w + g; k-step ks covers K columns [16ks, 16ks + 16)
-  uint32_t wa[NK][2][4];
+  // unit 8w + g; k-step ks covers K columns [16ks, 16ks + 16), the tail wt
+  // columns [16NK, K)
+  uint32_t wa[NK][2][4], wt[2][2];
   {
     const bf16* wi = a.w_ih + (size_t)d * H4 * E;
     const bf16* wh = a.w_hh + ((size_t)d * a.G + group) * H4 * H;
@@ -193,6 +219,13 @@ __global__ void __launch_bounds__(4 * H, 1) bilstm_fwd_mma_kernel(const Args a) 
         wa[ks][mt][1] = pair(2 * mt + 1, k);
         wa[ks][mt][2] = pair(2 * mt, k + 8);
         wa[ks][mt][3] = pair(2 * mt + 1, k + 8);
+      }
+    }
+    if constexpr (kTail) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        wt[mt][0] = pair(2 * mt, 16 * NK + 2 * t);
+        wt[mt][1] = pair(2 * mt + 1, 16 * NK + 2 * t);
       }
     }
   }
@@ -255,6 +288,12 @@ __global__ void __launch_bounds__(4 * H, 1) bilstm_fwd_mma_kernel(const Args a) 
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][0], wa[NK - 1][mt], b[0], b[1]);
     }
+    if constexpr (kTail) {
+      uint32_t b;
+      ldmatrix_x1(b, b_step + (uint32_t)(NK * 32));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16_k8(acc[mt][1], wt[mt], b);
+    }
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -315,6 +354,7 @@ int bilstm_fwd_mma_stages() { return kStages; }
 int bilstm_fwd_mma_max_chunks() { return kMaxChunks; }
 int bilstm_fwd_mma_max_threads() { return kMaxThreads; }
 int bilstm_fwd_mma_pad() { return kPad; }
+int bilstm_fwd_mma_tail_pad() { return kTailPad; }
 
 const char* bilstm_fwd_mma_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -347,8 +387,9 @@ int bilstm_fwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = E0 + E1;
   // the model's layers at the resident widths: E = H below, E = 2H stacked;
-  // layer 0 of the two-layer models at embedding 80 and 72
-  // (ops/lstm_cuda.py:FWD_MMA_SHAPES)
+  // layer 0 of the two-layer models at embedding 80 and 72; the shapes at
+  // H % 16 == 8 and H = 48 at E = 80 / 112 (a k8 tail) that the layers of
+  // 1-56 units run at (ops/lstm_cuda.py:FWD_MMA_SHAPES)
   if (H == 80 && E == 80) return launch<80, 80>(a, tiles, threads, st);
   if (H == 72 && E == 72) return launch<72, 72>(a, tiles, threads, st);
   if (H == 64 && E == 64) return launch<64, 64>(a, tiles, threads, st);
@@ -358,6 +399,17 @@ int bilstm_fwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   if (H == 32 && E == 64) return launch<32, 64>(a, tiles, threads, st);
   if (H == 16 && E == 16) return launch<16, 16>(a, tiles, threads, st);
   if (H == 16 && E == 32) return launch<16, 32>(a, tiles, threads, st);
+  if (H == 8 && E == 8) return launch<8, 8>(a, tiles, threads, st);
+  if (H == 8 && E == 16) return launch<8, 16>(a, tiles, threads, st);
+  if (H == 16 && E == 8) return launch<16, 8>(a, tiles, threads, st);
+  if (H == 24 && E == 24) return launch<24, 24>(a, tiles, threads, st);
+  if (H == 24 && E == 48) return launch<24, 48>(a, tiles, threads, st);
+  if (H == 40 && E == 40) return launch<40, 40>(a, tiles, threads, st);
+  if (H == 40 && E == 80) return launch<40, 80>(a, tiles, threads, st);
+  if (H == 48 && E == 80) return launch<48, 80>(a, tiles, threads, st);
+  if (H == 48 && E == 112) return launch<48, 112>(a, tiles, threads, st);
+  if (H == 56 && E == 56) return launch<56, 56>(a, tiles, threads, st);
+  if (H == 56 && E == 112) return launch<56, 112>(a, tiles, threads, st);
   return (int)cudaErrorInvalidValue;
 }
 

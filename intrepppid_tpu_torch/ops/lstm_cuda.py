@@ -20,13 +20,14 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     other widths that fit. Three kernels do it, picked by shape and dtype
     (``fwd_kernel``): ``bilstm_layer_fwd_mma`` and
     ``bilstm_layer_fwd_train_mma`` launch ``csrc/bilstm_fwd_mma.cu`` (bf16,
-    H <= 64 and E = H = 72 or 80: the products on the tensor cores),
-    ``bilstm_layer_fwd_f32`` and ``bilstm_layer_fwd_train_f32`` launch
-    ``csrc/bilstm_fwd_f32.cu`` (f32, H <= 80: three tf32 passes a product on
-    the tensor cores), and the two wrappers themselves launch
-    ``csrc/bilstm_fwd.cu`` for the rest (CUDA cores: the shapes the
-    tensor-core forwards do not take, e.g. bf16 at H = 80, E = 72 and f32 at
-    H = 72). Plain twin of all three: ``ops/lstm.py:bidir_layer``.
+    every resident shape a layer runs at, ``FWD_MMA_SHAPES``: the products
+    on the tensor cores), ``bilstm_layer_fwd_f32`` and
+    ``bilstm_layer_fwd_train_f32`` launch ``csrc/bilstm_fwd_f32.cu`` (f32,
+    H <= 80: three tf32 passes a product on the tensor cores), and the two
+    wrappers themselves launch ``csrc/bilstm_fwd.cu`` for the rest (CUDA
+    cores: shapes no layer runs at, e.g. bf16 at H = 80, E = 72 and f32 at
+    H = 72; by name in bf16). Plain twin of all three:
+    ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Four kernels do it, picked by shape and dtype (``sweep_kernel``):
@@ -92,11 +93,12 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
   ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 8 == 0: a split-K GEMM on the
   tensor cores, its last 128-row gate tile masked where H % 32 != 0),
   ``bilstm_wgrad_f32`` launches ``csrc/bilstm_wgrad_f32.cu`` (f32,
-  H % 32 == 0: the same GEMM in three tf32 passes), ``bilstm_wgrad``
-  itself launches ``csrc/bilstm_wgrad.cu`` for the rest (f32 at other
-  widths, CUDA cores). Plain twin of all three:
-  ``ops/lstm.py:bidir_layer_wgrad``. On the wide route in bf16,
-  ``layer_bwd`` splits the products as the JAX lite mode does
+  H % 16 == 0: the same GEMM in three tf32 passes, 64-row gate tiles at
+  H % 32 == 16), ``bilstm_wgrad`` itself launches ``csrc/bilstm_wgrad.cu``
+  for the rest (CUDA cores: no layer's shape; by name in f32). Plain twin
+  of all three: ``ops/lstm.py:bidir_layer_wgrad``. On the wide route in
+  bf16 past 96 units (``wgrad_split``), ``layer_bwd`` splits the products
+  as the JAX lite mode does
   (``lstm_pallas_layer.py:1091-1108``: ``dW_ih`` an XLA GEMM, ``dW_hh`` in
   the Pallas kernel): ``bilstm_wgrad_split`` takes ``dW_ih`` from
   ``bilstm_wgrad_ih`` (cuBLAS bf16 products with f32 output, one per
@@ -107,8 +109,7 @@ Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
-of its own: two on the CUDA cores (the cluster forward up to 288 units,
-on no path and reached by name; the f32 wgrad), and the tensor-core ones:
+of its own: one on the CUDA cores (the f32 wgrad), and the tensor-core ones:
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
   _fwd_pallas``, by one of six tensor-core kernels (``recurrence_fwd_kernel``):
@@ -128,10 +129,8 @@ on no path and reached by name; the f32 wgrad), and the tensor-core ones:
   clusters, the product on ``mma.sync`` from bf16 weight fragments read
   from L2, ``recurrence_mma_weights``), ``lstm_recurrence_fwd_wide_f32``
   launches ``csrc/lstm_recurrence_fwd_wide_f32.cu`` (f32 past 288: the same
-  design in three tf32 passes on the sweep's f32 fragment copy);
-  ``lstm_recurrence_fwd`` itself launches the cluster kernel
-  ``csrc/lstm_recurrence_fwd.cu`` only when asked for by name (up to 288
-  units; bf16 from 96). Plain twin of all seven: ``recurrence_fwd``.
+  design in three tf32 passes on the sweep's f32 fragment copy). Plain
+  twin of all six: ``recurrence_fwd``.
 * ``lstm_recurrence_bwd`` is the reverse-time sweep of ``lstm_pallas.py:274
   _bwd_pallas`` (``dxg``), by one of six tensor-core kernels
   (``recurrence_sweep_kernel``): ``lstm_recurrence_bwd_mma`` launches
@@ -172,10 +171,11 @@ same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
 hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards (the wide ones too), ``bilstm_wgrad``,
-``lstm_recurrence_fwd`` and ``lstm_recurrence_wgrad``; ``bilstm_gates``,
-``bilstm_bwd_lite`` and ``lstm_recurrence_bwd`` only dispatch, and the
-kernel's own wrapper counts (the last keeps a count that stays 0); ``bilstm_wgrad_ih`` counts
+the forwards (the wide ones too), ``bilstm_wgrad`` and
+``lstm_recurrence_wgrad``; ``bilstm_gates``, ``bilstm_bwd_lite``,
+``lstm_recurrence_fwd`` and ``lstm_recurrence_bwd`` only dispatch, and the
+kernel's own wrapper counts (the last two keep a count that stays 0);
+``bilstm_wgrad_ih`` counts
 its calls, each a layer's ``dW_ih`` products.
 """
 from __future__ import annotations
@@ -213,8 +213,7 @@ SMEM_LIMIT = 232448
 # the kernels' compile-time constants, checked against each built library
 # when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
 # bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
-# bilstm_wgrad.cu (kTile), bilstm_common.cuh
-# (kWideCluster, kWideMaxThreads, kRecMaxH, kWideRowsMask),
+# bilstm_wgrad.cu (kTile), bilstm_common.cuh (kWideCluster, kRecMaxH),
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
@@ -224,7 +223,7 @@ SMEM_LIMIT = 232448
 # lstm_recurrence_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxH, kWPad, kFPad), lstm_recurrence_fwd_mma.cu (kMmaTile, kStages, kMaxH,
 # kWPad, kFPad), bilstm_fwd_mma.cu (kStages, kMaxChunks, kMaxThreads,
-# kPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
+# kPad, kTailPad), bilstm_wgrad_mma.cu (kTileM, kTileN, kTileK, kStages),
 # bilstm_bwd_lite_mma_resident.cu (kMmaTile, kMaxH, kMaxThreads, kPad, kStages),
 # bilstm_fwd_f32.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH, kStrideAlign,
 # kStridePad), bilstm_bwd_lite_f32_resident.cu (kMmaTile, kMaxH, kMaxThreads,
@@ -232,8 +231,9 @@ SMEM_LIMIT = 232448
 # kMaxH, kWPad, kFPad), bilstm_gates_mma.cu (kBM, kBN, kBK, kStages, kSmem),
 # bilstm_bwd_lite_mma.cu (kWideCluster, kThreads, kPad, kXgPad),
 # bilstm_fwd_wide_mma.cu (kWideCluster, kThreads, kPad, the uneven instance's
-# row tiles and widths), bilstm_wgrad_f32.cu
-# (kTileM, kTileN, kTileK, kStages, kSmem), lstm_recurrence_{fwd,bwd}_wide_mma.cu
+# row tiles and widths), bilstm_wgrad_f32.cu (the 128 x 128 tile, kTileK, its
+# stages and shared memory; the narrow tile's rows, widest columns, blocks an
+# SM and shared memory), lstm_recurrence_{fwd,bwd}_wide_mma.cu
 # and lstm_recurrence_{fwd,bwd}_wide_f32.cu (kWideCluster, kThreads, their padding,
 # kMinH, kRecMaxH, the row tiles of each instance), bilstm_bwd_lite_f32.cu
 # (kWideCluster, kThreads, kFPad, its row tiles and widths), bilstm_gates_f32.cu
@@ -248,10 +248,10 @@ SMEM_LIMIT = 232448
 ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
-# the recurrence op's CUDA-core cluster forward's blocks hold H threads, one
-# per unit: at most 288 (a second instance past 256); the recurrence op's
-# widest H on the card (its tensor-core kernels past 288); the wide route's
-# input parts are multiples of WIDE_PART_STEP wide
+# the wide kernels' clusters; the widest H a layer route takes (past it the
+# recurrence op's tensor-core kernels for widths past 288); the recurrence
+# op's widest H on the card; the wide route's input parts are multiples of
+# WIDE_PART_STEP wide
 WIDE_CLUSTER, WIDE_MAX_THREADS, REC_MAX_H = 8, 288, 1024
 WIDE_PART_STEP = 16
 # the tensor-core sweeps: rows per block (the n of mma m16n8k16), cp.async
@@ -280,12 +280,18 @@ BWD_F32_MAX_CHUNKS, BWD_F32_STRIDE_ALIGN, BWD_F32_STRIDE_PAD = 2, 32, 8
 BWD_F32_ONESTAGE_MAX_THREADS, BWD_F32_ONESTAGE_MAX_H = 320, 80
 # the tensor-core forward: its (H, E) instances (the model's layers at the
 # resident widths, E = H and E = 2H; at H = 48 no sweep takes E = 96; past
-# MMA_MAX_H layer 0 of the two-layer models at embedding 72 and 80, E = H,
-# where bilstm_fwd.cu took them), x chunks a thread copies per step, and
-# its widest block (the <80, 80> instance: one warp per 8 units)
+# MMA_MAX_H layer 0 of the two-layer models at embedding 72 and 80, E = H;
+# the shapes at H % 16 == 8 and H = 48 at E = 80 / 112 that the layers of
+# 1-56 units run at, whose K = E + H % 16 == 8 ends in a k8 step; all of
+# them shapes where bilstm_fwd.cu took them), x chunks a thread copies per
+# step, its widest block (the <80, 80> instance: one warp per 8 units), and
+# the padding of its [x ; h] rows where K % 16 == 8 (MMA_PAD where K % 16
+# == 0: either keeps the row stride an odd number of 16 bytes)
 FWD_MMA_SHAPES = ((16, 16), (16, 32), (32, 32), (32, 64), (48, 48), (64, 64), (64, 128),
-                  (72, 72), (80, 80))
+                  (72, 72), (80, 80), (8, 8), (8, 16), (16, 8), (24, 24), (24, 48), (40, 40),
+                  (40, 80), (48, 80), (48, 112), (56, 56), (56, 112))
 FWD_MMA_MAX_CHUNKS, FWD_MMA_MAX_THREADS = 2, 320
+FWD_MMA_TAIL_PAD = 16
 # the f32 tensor-core forward: x chunks a thread copies per step (its row
 # stride is the f32 sweep's), the row tiles it takes (one or two n8 tiles),
 # its widest H and its threads there (the instances at H = 80 take 320, in
@@ -303,9 +309,6 @@ REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N, REC_WGRAD_MMA_TILE_K = 64, 128, 64
 REC_WGRAD_MMA_SMEM = 2 * REC_WGRAD_MMA_TILE_K * (
     REC_WGRAD_MMA_TILE_M + MMA_PAD + REC_WGRAD_MMA_TILE_N + MMA_PAD) * 2
 REC_WGRAD_MMA_TARGET_BLOCKS = 2 * 132
-# rows each wide-kernel thread may own; the row tile is WIDE_CLUSTER times that
-WIDE_ROWS = (2, 4, 7, 10)
-_WIDE_ROWS_MASK = sum(1 << r for r in WIDE_ROWS)
 # the tensor-core input gates: block tile (rows x gate columns), input
 # columns a stage, cp.async stages, and its dynamic shared memory
 GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K, GATES_MMA_STAGES = 128, 128, 32, 4
@@ -449,6 +452,26 @@ FWD_WIDE_F32_ROWS_288 = (16,)
 # waves of blocks the f32 wgrad's split may reach (``wgrad_f32_plan``)
 WGRAD_F32_MAX_WAVES = 8
 WGRAD_F32_SMEM = 2 * WGRAD_F32_STAGES * WGRAD_MMA_TILE_K * (WGRAD_MMA_TILE_M + 8) * 4
+# the f32 wgrad's tile at H % 32 == 16 (``wgrad_f32_tile``): 64 gate rows,
+# which divide 4H, by the whole E + H row rounded up to 32 columns, up to
+# 160; two blocks an SM (``wgrad_f32_stages``: the stages, at most
+# WGRAD_F32_STAGES, that let two share an SM's shared memory)
+WGRAD_F32_NARROW_M, WGRAD_F32_NARROW_MAX_N, WGRAD_F32_NARROW_BLOCKS = 64, 160, 2
+# the widths the f32 wgrad takes are multiples of this: 4H is then a
+# multiple of the 64-row tile, and every f32 layer's padded width is one
+WGRAD_F32_H_STEP = 16
+# the tiles the kernel is built for: those two, and 128 x 160 (the last gate
+# tile masked at 4H = 320), timed against them at E = H = 80 (PERF.md)
+WGRAD_F32_TILES = ((128, 128), (128, 160)) + tuple(
+    (WGRAD_F32_NARROW_M, n) for n in range(32, WGRAD_F32_NARROW_MAX_N + 1, 32))
+# an SM's shared memory, and what the card keeps of it for each block (bytes)
+SM_SMEM, BLOCK_SMEM_RESERVE = 233472, 1024
+# the bf16 wide route splits a layer's weight gradients as the JAX lite
+# mode does (``bilstm_wgrad_split``: dW_ih on cuBLAS, dW_hh on
+# bilstm_wgrad_mma) only past this width: at 96 the split took 1.31 ms
+# against 0.98 for the whole kernel in turns on an H100, and won at 160 and
+# 288 (PERF.md)
+WGRAD_SPLIT_PAST_H = 96
 # blocks the wgrad split aims for: a few waves of the 132 SMs
 WGRAD_TARGET_BLOCKS = 4 * 132
 # a layer no route takes at its own widths runs at H or a multiple of
@@ -474,7 +497,6 @@ _SIGNATURES = {
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "bilstm_bwd_lite_mma": ("bilstm_bwd_lite_mma", [_I] + [_P] * 11 + [_I] + [_P] * 3
                             + [_I] * 6 + [_P, _P]),
-    "lstm_recurrence_fwd": ("lstm_recurrence_fwd", [_I, _I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_mma": ("lstm_recurrence_bwd_mma", [_P] * 9 + [_I] * 7 + [_P]),
     "lstm_recurrence_fwd_mma": ("lstm_recurrence_fwd_mma", [_P] * 7 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
@@ -482,7 +504,7 @@ _SIGNATURES = {
     "bilstm_fwd_f32": ("bilstm_fwd_f32", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 8 + [_P]),
     "lstm_recurrence_bwd_f32": ("lstm_recurrence_bwd_f32", [_P] * 9 + [_I] * 7 + [_P]),
     "bilstm_fwd_wide_mma": ("bilstm_fwd_wide_mma", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
-    "bilstm_wgrad_f32": ("bilstm_wgrad_f32", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "bilstm_wgrad_f32": ("bilstm_wgrad_f32", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 7 + [_P]),
     "lstm_recurrence_fwd_wide_mma": ("lstm_recurrence_fwd_wide_mma",
                                      [_I] + [_P] * 7 + [_I] * 7 + [_P, _P]),
     "lstm_recurrence_bwd_wide_mma": ("lstm_recurrence_bwd_wide_mma",
@@ -541,9 +563,9 @@ _CONSTANTS = {
     "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
     "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
                         "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
-                        "bilstm_fwd_mma_pad"),
+                        "bilstm_fwd_mma_pad", "bilstm_fwd_mma_tail_pad"),
                        (MMA_TILE, MMA_STAGES, FWD_MMA_MAX_CHUNKS, FWD_MMA_MAX_THREADS,
-                        MMA_PAD)),
+                        MMA_PAD, FWD_MMA_TAIL_PAD)),
     "bilstm_wgrad_mma": (("bilstm_wgrad_mma_tile_m", "bilstm_wgrad_mma_tile_n",
                           "bilstm_wgrad_mma_tile_k", "bilstm_wgrad_mma_stages",
                           "bilstm_wgrad_mma_smem"),
@@ -557,9 +579,6 @@ _CONSTANTS = {
     "bilstm_bwd_lite_mma": (("bilstm_bwd_lite_mma_cluster", "bilstm_bwd_lite_mma_threads",
                              "bilstm_bwd_lite_mma_pad", "bilstm_bwd_lite_mma_xg_pad"),
                             (WIDE_CLUSTER, LITE_MMA_THREADS, MMA_PAD, LITE_MMA_XG_PAD)),
-    "lstm_recurrence_fwd": (("lstm_recurrence_fwd_cluster", "lstm_recurrence_fwd_max_threads",
-                             "lstm_recurrence_fwd_rows_mask", "lstm_recurrence_fwd_max_h"),
-                            (WIDE_CLUSTER, WIDE_MAX_THREADS, _WIDE_ROWS_MASK, WIDE_MAX_THREADS)),
     "lstm_recurrence_bwd_mma": (("lstm_recurrence_bwd_mma_tile",
                                  "lstm_recurrence_bwd_mma_stages",
                                  "lstm_recurrence_bwd_mma_max_chunks",
@@ -599,9 +618,15 @@ _CONSTANTS = {
                              sum(1 << (h // 32) for h in FWD_WIDE_MMA_WIDTHS if h % 128))),
     "bilstm_wgrad_f32": (("bilstm_wgrad_f32_tile_m", "bilstm_wgrad_f32_tile_n",
                           "bilstm_wgrad_f32_tile_k", "bilstm_wgrad_f32_stages",
-                          "bilstm_wgrad_f32_smem"),
+                          "bilstm_wgrad_f32_smem", "bilstm_wgrad_f32_narrow_m",
+                          "bilstm_wgrad_f32_narrow_max_n", "bilstm_wgrad_f32_narrow_blocks",
+                          "bilstm_wgrad_f32_narrow_smem"),
                          (WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N, WGRAD_MMA_TILE_K,
-                          WGRAD_F32_STAGES, WGRAD_F32_SMEM)),
+                          WGRAD_F32_STAGES, WGRAD_F32_SMEM, WGRAD_F32_NARROW_M,
+                          WGRAD_F32_NARROW_MAX_N, WGRAD_F32_NARROW_BLOCKS,
+                          # its 64 x 160 tile's: three stages of 32 rows of 72 + 168 floats
+                          WGRAD_MMA_TILE_K * (WGRAD_F32_NARROW_M + WGRAD_F32_NARROW_MAX_N + 16)
+                          * 4 * 3)),
     **{f"lstm_recurrence_{kind}_wide_mma": (
         tuple(f"lstm_recurrence_{kind}_wide_mma_{c}"
               for c in ("cluster", "threads", "pad", "min_h", "max_h", "rows1", "rows2")),
@@ -925,12 +950,13 @@ def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
     """``(threads, smem_bytes)`` of the tensor-core forward
     (``csrc/bilstm_fwd_mma.cu``), or ValueError for a dtype or shape it does
     not take. It takes bfloat16 at the (H, E) it is instantiated for
-    (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H, and E = H = 72
-    or 80, shapes ``launch_plan`` (``bilstm_fwd.cu``) takes too, so no layer
-    changes its route or padded shape) in 1 or 2 input parts that are
-    multiples of 8 wide. One warp per 8 hidden units (at 80,
-    ``FWD_MMA_MAX_THREADS``); the shared memory is the three-stage ring of
-    8-row [x ; h] tiles."""
+    (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H, E = H = 72 or
+    80, and the shapes at H % 16 == 8 and H = 48 at E = 80 / 112 whose
+    K = E + H ends in a k8 step; shapes ``launch_plan`` (``bilstm_fwd.cu``)
+    takes too, so no layer changes its route or padded shape) in 1 or 2
+    input parts that are multiples of 8 wide. One warp per 8 hidden units
+    (at 80, ``FWD_MMA_MAX_THREADS``); the shared memory is the three-stage
+    ring of 8-row [x ; h] tiles, each row padded by ``fwd_mma_pad``."""
     E = sum(E_parts)
     if (dtype != torch.bfloat16 or (H, E) not in FWD_MMA_SHAPES or len(E_parts) not in (1, 2)
             or any(e <= 0 or e % 8 for e in E_parts)):
@@ -938,7 +964,15 @@ def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
             f"bilstm_fwd_mma kernel takes bfloat16 with (H, E) in {list(FWD_MMA_SHAPES)} and "
             f"1 or 2 input parts that are positive multiples of 8, got {dtype}, H={H}, "
             f"E_parts={list(E_parts)}")
-    return 4 * H, MMA_STAGES * MMA_TILE * (E + H + MMA_PAD) * 2
+    return 4 * H, MMA_STAGES * MMA_TILE * (E + H + fwd_mma_pad(E + H)) * 2
+
+
+def fwd_mma_pad(K: int) -> int:
+    """bf16 elements of padding on the tensor-core forward's [x ; h] rows of
+    K = E + H: ``MMA_PAD`` where K % 16 == 0, ``FWD_MMA_TAIL_PAD`` where
+    K % 16 == 8, so the row stride is an odd number of 16 bytes (ldmatrix
+    then reads 8 rows in distinct bank groups)."""
+    return MMA_PAD if K % 16 == 0 else FWD_MMA_TAIL_PAD
 
 
 def fwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
@@ -992,11 +1026,12 @@ def fwd_f32_rows(E_parts: Sequence[int], H: int, B: int, G: int, sms: int) -> in
 def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's forward (both variants) takes for a
     layer, by shape and dtype alone, the first whose plan fits:
-    ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16, H <= 64 and E = H = 72
-    or 80), ``"bilstm_fwd_f32"`` (``fwd_f32_plan``: f32, H % 16 == 0 up to
-    80), ``"bilstm_fwd"`` (``launch_plan``: the CUDA cores, the shapes the
-    tensor-core forwards do not take, such as bf16 at H = 80, E = 72 and f32
-    at H = 72); ValueError naming the three
+    ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16 at ``FWD_MMA_SHAPES``,
+    every resident shape a bf16 layer runs at), ``"bilstm_fwd_f32"``
+    (``fwd_f32_plan``: f32, H % 16 == 0 up to 80), ``"bilstm_fwd"``
+    (``launch_plan``: the CUDA cores, the shapes the tensor-core forwards do
+    not take, such as bf16 at H = 80, E = 72 and f32 at H = 72, none a layer
+    runs at); ValueError naming the three
     refusals otherwise. A tensor-core plan takes a shape whether or not the
     CUDA-core one does."""
     return _first_fitting(
@@ -1036,19 +1071,53 @@ def wgrad_mma_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
 def wgrad_f32_check(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> None:
     """ValueError for a dtype or shape the f32 tensor-core weight-gradient
     kernel (``csrc/bilstm_wgrad_f32.cu``) does not take: it takes float32
-    with H % 32 == 0 (whole 128-row gate tiles: at H = 80 its 128 x 128
-    tiles would do about twice the result's work, where ``bilstm_wgrad.cu``
-    is faster) and 1 or 2 input parts that are multiples of 8 wide."""
-    _tensor_core_wgrad_check("bilstm_wgrad_f32", torch.float32, 32, E_parts, H, dtype)
+    with H % 16 == 0 (whole 128-row gate tiles where H % 32 == 0, whole
+    64-row ones at the rest: ``wgrad_f32_tile``) and 1 or 2 input parts that
+    are multiples of 8 wide."""
+    _tensor_core_wgrad_check("bilstm_wgrad_f32", torch.float32, WGRAD_F32_H_STEP, E_parts, H,
+                             dtype)
+
+
+def wgrad_f32_tile(E_parts: Sequence[int], H: int) -> Tuple[int, int]:
+    """``(gate rows, source columns)`` of the f32 tensor-core wgrad's block
+    tile: 128 x 128 where H % 32 == 0 (the shapes it took before the
+    narrow tile), else ``WGRAD_F32_NARROW_M`` (64, a divisor of 4H at
+    H % 16 == 0) x the E + H row rounded up to 32 columns, at most
+    ``WGRAD_F32_NARROW_MAX_N`` (160; a wider row takes several)."""
+    if H % 32 == 0:
+        return WGRAD_MMA_TILE_M, WGRAD_MMA_TILE_N
+    return WGRAD_F32_NARROW_M, min(WGRAD_F32_NARROW_MAX_N, -(-(sum(E_parts) + H) // 32) * 32)
+
+
+def wgrad_f32_blocks(tile: Tuple[int, int]) -> int:
+    """Blocks of the f32 wgrad's ``tile`` kernel an SM holds (its launch
+    bounds): two of the 64-row tiles, one of the 128-row ones (255
+    registers a thread)."""
+    return WGRAD_F32_NARROW_BLOCKS if tile[0] == WGRAD_F32_NARROW_M else 1
+
+
+def wgrad_f32_stages(tile: Tuple[int, int]) -> int:
+    """cp.async stages of the f32 wgrad's ``tile`` kernel: the most, up to
+    ``WGRAD_F32_STAGES``, whose f32 rows (each operand's tile width plus 8)
+    let ``wgrad_f32_blocks`` blocks share an SM's shared memory."""
+    stage = WGRAD_MMA_TILE_K * (tile[0] + tile[1] + 16) * 4
+    fit = (SM_SMEM // wgrad_f32_blocks(tile) - BLOCK_SMEM_RESERVE) // stage
+    return min(WGRAD_F32_STAGES, fit)
+
+
+def wgrad_f32_smem(tile: Tuple[int, int]) -> int:
+    """Dynamic shared memory of the f32 wgrad's ``tile`` kernel (bytes)."""
+    return wgrad_f32_stages(tile) * WGRAD_MMA_TILE_K * (tile[0] + tile[1] + 16) * 4
 
 
 def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel a layer's weight gradients take, by shape and dtype alone:
     ``"bilstm_wgrad_mma"`` where ``wgrad_mma_check`` passes (bf16,
     H % 8 == 0), ``"bilstm_wgrad_f32"`` where ``wgrad_f32_check`` passes
-    (f32, H % 32 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check``
-    passes (the shapes the tensor-core kernels do not take: f32 at other
-    widths); ValueError naming the three refusals otherwise."""
+    (f32, H % 16 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check``
+    passes (the shapes the tensor-core kernels do not take: no f32 layer,
+    since ``wgrad_check`` too needs 4H % 64 == 0); ValueError naming the
+    three refusals otherwise."""
     try:
         wgrad_mma_check(E_parts, H, dtype)
         return "bilstm_wgrad_mma"
@@ -1062,6 +1131,14 @@ def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
             except ValueError as cores:
                 raise ValueError(f"{cores}; {mma}; {f32}") from None
     return "bilstm_wgrad"
+
+
+def wgrad_split(route: str, H: int, dtype: torch.dtype) -> bool:
+    """Whether ``layer_bwd`` splits a layer's weight gradients as the JAX
+    lite mode does (``bilstm_wgrad_split``) rather than taking them whole
+    from ``wgrad_kernel``'s kernel: on the wide route in bfloat16 past
+    ``WGRAD_SPLIT_PAST_H`` units (at 96 the whole kernel is the faster)."""
+    return route == "wide" and dtype == torch.bfloat16 and H > WGRAD_SPLIT_PAST_H
 
 
 def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
@@ -1081,22 +1158,35 @@ def wgrad_mma_plan(T: int, B: int, G: int, E_parts: Sequence[int],
     return m_tiles, n_tiles, splits
 
 
-def wgrad_f32_plan(T: int, B: int, G: int, E_parts: Sequence[int], H: int,
-                   sms: int) -> Tuple[int, int, int]:
-    """``(m_tiles, n_tiles, splits)`` of the f32 tensor-core wgrad launch:
-    the tiles of ``wgrad_mma_plan``, and the split whose blocks fill the
-    card's ``sms`` SMs in whole waves best. The kernel holds one block an SM
-    (255 registers a thread), so a launch costs about ceil(blocks / sms)
-    waves of ``1 / splits`` of a group's rows each: the split with the least
-    of that, among at most ``WGRAD_F32_MAX_WAVES`` waves of blocks and no
-    more splits than K-tiles, the smaller split on a tie."""
-    m_tiles, n_tiles, _ = wgrad_mma_plan(T, B, G, E_parts, H)
+def wgrad_f32_plan(T: int, B: int, G: int, E_parts: Sequence[int], H: int, sms: int,
+                   tile: Optional[Tuple[int, int]] = None) -> Tuple[int, int, int]:
+    """``(m_tiles, n_tiles, splits)`` of the f32 tensor-core wgrad launch
+    with block tile ``tile`` (``wgrad_f32_tile`` when None; the last gate or
+    column tile masked where it runs past 4H or E + H), and the split whose
+    blocks fill the card's ``sms`` SMs in whole waves best. An SM holds
+    ``wgrad_f32_blocks(tile)`` blocks (one of the 128-row tiles, 255
+    registers a thread; two of the 64-row ones), so a launch costs about
+    ceil(blocks / (sms x that)) waves of ``1 / splits`` of a group's rows
+    each: the split with the least of that, among at most
+    ``WGRAD_F32_MAX_WAVES`` waves of blocks and no more splits than K-tiles,
+    the smaller split on a tie."""
+    tile = tile or wgrad_f32_tile(E_parts, H)
+    m_tiles = -(-4 * H // tile[0])
+    n_tiles = -(-(sum(E_parts) + H) // tile[1])
     per_split = m_tiles * n_tiles * 2 * G
     k_tiles = -(-T * (B // G) // WGRAD_MMA_TILE_K)
-    most = max(1, min(k_tiles, WGRAD_F32_MAX_WAVES * sms // per_split))
-    splits = min(range(1, most + 1),
-                 key=lambda s: (Fraction(-(-per_split * s // sms), s), s))
-    return m_tiles, n_tiles, splits
+    return m_tiles, n_tiles, _whole_wave_splits(per_split, k_tiles,
+                                                sms * wgrad_f32_blocks(tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_wave_splits(per_split: int, k_tiles: int, slots: int) -> int:
+    """``wgrad_f32_plan``'s split: kept per shape, since every layer call
+    of a step asks again and the search takes a host millisecond or more
+    where a split has few blocks (two at H = 16 in one group: some 1,000
+    candidates)."""
+    most = max(1, min(k_tiles, WGRAD_F32_MAX_WAVES * slots // per_split))
+    return min(range(1, most + 1), key=lambda s: (Fraction(-(-per_split * s // slots), s), s))
 
 
 def wgrad_mma_rows(T: int, B: int, G: int, splits: int, split: int, g: int, d: int):
@@ -1443,10 +1533,7 @@ def _lite_mma_part_stride(rows: int) -> int:
 
 
 def wide_smem(kind: str, H: int, rows: int) -> int:
-    """Dynamic shared memory of a wide kernel's block. ``kind`` "fwd" (the
-    op's CUDA-core cluster forward, ``rows`` per thread): the f32 weight
-    slice of its H/8 units (up to ``WIDE_MAX_THREADS``) and the tile's h.
-    ``kind`` "lite_mma" (the
+    """Dynamic shared memory of a wide kernel's block. ``kind`` "lite_mma" (the
     tensor-core sweep, a row tile of ``rows``): the bf16 slice and, per
     row, two h_prev buffers, the f32 xg slice, c_prev and two dy streams,
     the bf16 dgates tile, and two buffers of the f32 partial dh of all H
@@ -1499,15 +1586,7 @@ def wide_smem(kind: str, H: int, rows: int) -> int:
         return (4 * U * (H + pad) * 2 + 2 * BR * (H + pad) * 2
                 + BR * (4 * U + LITE_MMA_XG_PAD) * 4 + 3 * BR * U * 2
                 + BR * (4 * U + pad) * 2 + buffers * H * _lite_mma_part_stride(BR) * 4)
-    if kind != "fwd":
-        raise ValueError(f"bilstm wide kernels: no kernel of kind {kind!r}")
-    return H * 4 * U * 4 + WIDE_CLUSTER * rows * H * 4
-
-
-def wide_tiles(B: int, G: int, rows_per_thread: int) -> int:
-    """Row tiles of a wide launch: each weight group is cut into its own
-    tiles (the last one short), so no tile spans two groups."""
-    return G * -(-(B // G) // (WIDE_CLUSTER * rows_per_thread))
+    raise ValueError(f"bilstm wide kernels: no kernel of kind {kind!r}")
 
 
 def wide_plan(kind: str, B: int, G: int, H: int,
@@ -1515,21 +1594,19 @@ def wide_plan(kind: str, B: int, G: int, H: int,
     """``(rows, tiles, smem_bytes)`` of a wide launch: the rows whose
     clusters (one per row tile and each of the ``dirs`` directions) fill the
     card in the fewest waves, and among those the smallest tile; ``rows``
-    is the rows per thread (``WIDE_ROWS``) for the CUDA-core forward and the
-    row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
+    is the row tile (multiples of 8: ``LITE_MMA_ROWS`` for ``kind`` "lite_mma",
     ``LITE_MMA_UNEVEN_ROWS`` there at H % 128 != 0 and for "lite_mma_uneven",
     ``FWD_WIDE_MMA_ROWS`` for "fwd_mma" (``FWD_WIDE_MMA_UNEVEN_ROWS`` at
     H % 128 != 0), ``REC_WIDE_MMA_ROWS`` at H for "rec_fwd_mma" and
     "rec_bwd_mma", ``REC_WIDE_F32_ROWS`` at H for "rec_bwd_f32",
     ``REC_WIDE_F32_FWD_ROWS`` at H for "rec_fwd_f32", ``LITE_F32_ROWS`` for
-    "lite_f32", ``fwd_wide_f32_rows(H)`` for "fwd_f32")
-    for the tensor-core ones.
-    ``max_clusters(rows, smem)`` is how many clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+    "lite_f32", ``fwd_wide_f32_rows(H)`` for "fwd_f32"); ValueError for
+    another kind. ``max_clusters(rows, smem)`` is how many clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
     rows = {"lite_mma": LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS,
             "lite_mma_uneven": LITE_MMA_UNEVEN_ROWS,
             "fwd_mma": FWD_WIDE_MMA_ROWS if H % 128 == 0 else FWD_WIDE_MMA_UNEVEN_ROWS,
-            }.get(kind, WIDE_ROWS)
+            }.get(kind, ())
     if kind in ("rec_fwd_mma", "rec_bwd_mma"):
         rows = REC_WIDE_MMA_ROWS[kind[4:7]][1 if H <= 512 else 2]
     if kind in ("rec_fwd_f32", "rec_bwd_f32"):
@@ -1539,12 +1616,14 @@ def wide_plan(kind: str, B: int, G: int, H: int,
         rows = LITE_F32_ROWS
     if kind == "fwd_f32":
         rows = fwd_wide_f32_rows(H)
+    if not rows:
+        raise ValueError(f"bilstm wide kernels: no kernel of kind {kind!r}")
     best = None
     for R in rows:
         smem = wide_smem(kind, H, R)
         if smem > SMEM_LIMIT:
             continue
-        tiles = wide_tiles(B, G, R) if kind == "fwd" else mma_tiles(B, G, R)
+        tiles = mma_tiles(B, G, R)
         waves = -(-dirs * tiles // max(1, max_clusters(R, smem)))
         if best is None or waves < best[0]:
             best = (waves, R, tiles, smem)
@@ -1558,7 +1637,6 @@ _cluster_counts: Dict[tuple, int] = {}
 # smem) of each wide kernel's C entry, when it only reports occupancy
 _NO_OPERANDS = {"bilstm_bwd_lite_mma": [None] * 11 + [0] + [None] * 3,
                 "bilstm_fwd_wide_mma": [None] * 9,
-                "lstm_recurrence_fwd": [None] * 7 + [1],
                 "lstm_recurrence_fwd_wide_mma": [None] * 7 + [1],
                 "lstm_recurrence_bwd_wide_mma": [None] * 9 + [1],
                 "lstm_recurrence_bwd_wide_f32": [None] * 9 + [1],
@@ -2270,10 +2348,11 @@ def bilstm_wgrad(
 bilstm_wgrad.launches = 0
 
 
-def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups):
+def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups, tile=None):
     """A tensor-core weight-gradient launch (``wrapper.__name__`` names the
     kernel and its C entry) after ``check`` of its dtype and shapes, split
-    by ``wgrad_mma_plan`` (bf16) or ``wgrad_f32_plan`` (f32)."""
+    by ``wgrad_mma_plan`` (bf16) or ``wgrad_f32_plan`` (f32, at block tile
+    ``tile``, ``wgrad_f32_tile`` when None)."""
     x_parts = tuple(x_parts)
     _no_graph(dgc, *x_parts, hs_f, hs_b)
     if not dgc.is_cuda:
@@ -2298,16 +2377,19 @@ def _wgrad_tensor_core(wrapper, check, dgc, x_parts, hs_f, hs_b, groups):
         return (torch.zeros((2, 4 * H, E), dtype=torch.float32, device=dev),
                 torch.zeros((2, G, 4 * H, H), dtype=torch.float32, device=dev))
     if name == "bilstm_wgrad_f32":
-        _, _, splits = wgrad_f32_plan(T, B, G, E_parts, H, _sm_count(dev))
+        tile = tile or wgrad_f32_tile(E_parts, H)
+        _, _, splits = wgrad_f32_plan(T, B, G, E_parts, H, _sm_count(dev), tile)
+        extra = tile
     else:
         _, _, splits = wgrad_mma_plan(T, B, G, E_parts, H)
+        extra = ()
     partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(_kernels(name), name)(
             dgc.data_ptr(), _ptr(x_parts, 0), _ptr(x_parts, 1),
             *(list(E_parts) + [0, 0])[:2],
             hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
-            T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
+            T, B, H, G, splits, *extra, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(name, err)
     wrapper.launches += 1
@@ -2344,17 +2426,22 @@ def bilstm_wgrad_f32(
     hs_f: torch.Tensor,
     hs_b: torch.Tensor,
     groups: int,
+    tile: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer's weight gradients in f32 on the tensor cores, three tf32
     passes a product (``csrc/bilstm_wgrad_f32.cu``); the contract of
     :func:`bilstm_wgrad`. Takes the shapes ``wgrad_f32_check`` takes
-    (float32, H % 32 == 0) and raises for the rest; split by
-    ``wgrad_f32_plan``; the whole partials and the empty batch as in
-    :func:`bilstm_wgrad_mma`. Its
-    outputs carry no graph, so under grad mode it refuses an operand that
-    requires grad, on the CPU too."""
+    (float32, H % 16 == 0) and raises for the rest; block tile
+    ``wgrad_f32_tile`` (``tile`` pins another of ``WGRAD_F32_TILES``, to time
+    it), split by ``wgrad_f32_plan``; the whole partials and the empty
+    batch as in :func:`bilstm_wgrad_mma`. Its outputs carry no graph, so
+    under grad mode it refuses an operand that requires grad, on the CPU
+    too."""
+    if tile is not None and tuple(tile) not in WGRAD_F32_TILES:
+        raise ValueError(f"bilstm_wgrad_f32 is built for the tiles {list(WGRAD_F32_TILES)}, "
+                         f"got {tile}")
     return _wgrad_tensor_core(bilstm_wgrad_f32, wgrad_f32_check, dgc, x_parts, hs_f, hs_b,
-                              groups)
+                              groups, tile and tuple(tile))
 
 
 bilstm_wgrad_f32.launches = 0
@@ -3198,9 +3285,10 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
     The sweep is ``bilstm_bwd`` (resident) or, on the wide route, the input
     gates recomputed with the forward's kernel (the same dispatch, so the
     same f32 bits), the lite sweep, and dx, ``dgc`` and ``dbias`` from
-    ``ops/lstm.py:input_grads``; then ``bilstm_wgrad`` (in bf16 on the wide
-    route ``bilstm_wgrad_split``: ``dW_ih`` on cuBLAS, as the JAX lite mode
-    leaves it to XLA, and ``dW_hh`` on ``bilstm_wgrad_mma``). A padded layer's
+    ``ops/lstm.py:input_grads``; then ``bilstm_wgrad`` (where ``wgrad_split``
+    says so, in bf16 on the wide route past 96, ``bilstm_wgrad_split``:
+    ``dW_ih`` on cuBLAS, as the JAX lite mode leaves it to XLA, and ``dW_hh``
+    on ``bilstm_wgrad_mma``). A padded layer's
     states and cotangents are grown back to Hp units by zeros (the padded
     units' values: ``pad_layer``), and its dx parts, ``dW_ih`` columns and
     gradients are cut back to the true widths."""
@@ -3220,8 +3308,7 @@ def layer_bwd(x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
                                  compute_dtype)
         dxf, dxb, dgc, dbias = input_grads(dgates, w_ih, Ep)
         del dgates
-    wgrad = (bilstm_wgrad_split if route == "wide" and compute_dtype == torch.bfloat16
-             else bilstm_wgrad)
+    wgrad = bilstm_wgrad_split if wgrad_split(route, Hp, compute_dtype) else bilstm_wgrad
     dw_ih, dw_hh = wgrad(dgc, x_parts, hs_f, hs_b, grouped_w_hh(w_hh).shape[1])
     if Ep != E_parts:
         dxf, dxb = (tuple(t[..., :e].contiguous() for t, e in zip(ts, E_parts))
@@ -3308,9 +3395,7 @@ def recurrence_fwd_kernel(H: int, compute_dtype: torch.dtype) -> str:
     float32, clusters whose blocks hold their share of the weight
     fragments; past ``WIDE_MAX_THREADS`` units ``"lstm_recurrence_fwd_wide_mma"``
     for bfloat16 and ``"lstm_recurrence_fwd_wide_f32"`` for float32;
-    ValueError for what none takes (``recurrence_check``). The cluster
-    kernel ``"lstm_recurrence_fwd"`` is on no path: it is asked for by
-    name."""
+    ValueError for what none takes (``recurrence_check``)."""
     recurrence_check(H, compute_dtype)
     bf16 = compute_dtype == torch.bfloat16
     if H in REC_MMA_WIDTHS:
@@ -3650,14 +3735,6 @@ def recurrence_f32_smem(H: int) -> int:
                 + MMA_STAGES * MMA_TILE * (xs + ws + 2 * cs))
 
 
-def _cluster_width(name: str, H: int) -> None:
-    """ValueError past ``WIDE_MAX_THREADS`` for the recurrence op's cluster
-    kernels, asked for by name: their weight slice fits shared memory up to
-    288 units, and past it the op takes the tensor-core kernels."""
-    if H > WIDE_MAX_THREADS:
-        raise ValueError(f"{name}: the cluster kernel takes H <= {WIDE_MAX_THREADS}, got H={H}")
-
-
 def _recurrence_operands(xg, valid, w, G, cd, what):
     """Checked operands of a recurrence kernel: ``(dev, T, D, B, H, valid8)``
     with the mask as contiguous uint8."""
@@ -3690,51 +3767,27 @@ def lstm_recurrence_fwd(
     :returns: ``hs, cs (T, D, B, H)`` and ``hn, cn (D, B, H)``, f32.
 
     On the card the forward runs the kernel ``recurrence_fwd_kernel`` names
-    for its width and dtype, a tensor-core one: through
-    :func:`lstm_recurrence_fwd_mma`, :func:`lstm_recurrence_fwd_f32`,
-    :func:`lstm_recurrence_fwd_mid_mma`, :func:`lstm_recurrence_fwd_mid_f32`,
-    :func:`lstm_recurrence_fwd_wide_mma` or
-    :func:`lstm_recurrence_fwd_wide_f32` (whose ``.launches`` then counts it;
-    ``wf``, the fragment copy of ``w`` where the caller has it, goes to the
-    last four: ``recurrence_mma_weights(w)`` in bf16,
-    ``recurrence_f32_weights(w)`` in f32). The cluster kernel here (up to
-    288 units) runs on no path: ``kernel="lstm_recurrence_fwd"`` asks for it
-    by name (to time it beside the others: in f32 at every width to 288, in
-    bf16 from 96, not at ``REC_MMA_WIDTHS``).
+    for its width and dtype (``kernel`` asks for another of them by name), a
+    tensor-core one: through :func:`lstm_recurrence_fwd_mma`,
+    :func:`lstm_recurrence_fwd_f32`, :func:`lstm_recurrence_fwd_mid_mma`,
+    :func:`lstm_recurrence_fwd_mid_f32`, :func:`lstm_recurrence_fwd_wide_mma`
+    or :func:`lstm_recurrence_fwd_wide_f32`, whose ``.launches`` counts it
+    (this wrapper only dispatches: its count stays 0); ``wf``, the fragment
+    copy of ``w`` where the caller has it, goes to the last four:
+    ``recurrence_mma_weights(w)`` in bf16, ``recurrence_f32_weights(w)`` in
+    f32.
     """
     _no_graph(xg, w)
     if not xg.is_cuda:
         return recurrence_fwd(xg, valid, w, G, compute_dtype)
     cd = compute_dtype
-    name = "lstm_recurrence_fwd"
-    if kernel not in (None, name, *_REC_TILE_FWD, *_REC_WIDE_FWD):
+    if kernel not in (None, *_REC_TILE_FWD, *_REC_WIDE_FWD):
         raise ValueError(f"lstm_recurrence_fwd: no forward kernel named {kernel!r}")
-    dev, T, D, B, H, valid8 = _recurrence_operands(xg, valid, w, G, cd, name)
-    if kernel == name and recurrence_fwd_kernel(H, cd) == "lstm_recurrence_fwd_mma":
-        raise ValueError(f"lstm_recurrence_fwd: csrc/lstm_recurrence_fwd.cu is not asked for by "
-                         f"name where the bf16 tensor-core forward takes H={H}")
+    H = xg.shape[-1] // 4
     kernel = kernel or recurrence_fwd_kernel(H, cd)
     if kernel in _REC_TILE_FWD:
         return _REC_TILE_FWD[kernel](xg, valid, w, G, cd)
-    if kernel in _REC_WIDE_FWD:
-        return _REC_WIDE_FWD[kernel](xg, valid, w, G, cd, wf)
-    _cluster_width(name, H)
-    hs = torch.empty((T, D, B, H), dtype=torch.float32, device=dev)
-    cs = torch.empty_like(hs)
-    hn = torch.zeros((D, B, H), dtype=torch.float32, device=dev)
-    cn = torch.zeros_like(hn)
-    if B * D == 0 or T == 0:
-        return hs, cs, hn, cn
-    R, tiles, smem = wide_plan("fwd", B, G, H, _max_clusters(name, cd, H, dev), dirs=D)
-    with torch.cuda.device(dev):
-        err = _kernels(name).lstm_recurrence_fwd(
-            _DTYPE_CODES[cd], R, xg.data_ptr(), valid8.data_ptr(), w.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), hn.data_ptr(), cn.data_ptr(), D, T, B, H, G, tiles, smem,
-            torch.cuda.current_stream(dev).cuda_stream, None,
-        )
-    _raise_on_error(name, err)
-    lstm_recurrence_fwd.launches += 1
-    return hs, cs, hn, cn
+    return _REC_WIDE_FWD[kernel](xg, valid, w, G, cd, wf)
 
 
 lstm_recurrence_fwd.launches = 0

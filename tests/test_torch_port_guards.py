@@ -54,7 +54,7 @@ def test_every_kernel_source_is_built_and_bound():
     from intrepppid_tpu_torch.ops import _build, lstm_cuda
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad", "lstm_recurrence_fwd",
+    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad",
                        "lstm_recurrence_wgrad", "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
@@ -215,12 +215,16 @@ def test_every_kernel_source_is_built_and_bound():
         assert "clusterDim.x = CL" in body and exchange in body and "mapa_u32(" in body, name
         assert own in body and "ldmatrix_x4(" in body, name
         assert "mma_tf32(" not in body and "map_shared_rank(" not in body, name
-    # the CUDA-core cluster forward (the op's, by name only) dispatches each
-    # width to a block instance (256 threads, and 288 for 257-288 units, in
-    # both dtypes); it reads no weight slice from a global copy
-    text = (_build.CSRC / "lstm_recurrence_fwd.cu").read_text()
-    assert "dispatch_wide(" in text and "wl" not in text.split()
-    assert "kGlobalW" not in text and "__launch_bounds__(kThreads, 1)" in text
+    # the bf16 resident forward ends a K of 8 mod 16 in one m16n8k8 step on
+    # an ldmatrix.x1 of the [x ; h] tile (no zero k16 step), its row stride
+    # a function of K; the f32 wgrad takes its tile as template parameters,
+    # with launch bounds of the tile's blocks an SM
+    text = (_build.CSRC / "bilstm_fwd_mma.cu").read_text().rsplit("#include", 1)[1]
+    assert text.count("mma_bf16_k8(") == 2 and "ldmatrix_x1(b, " in text
+    assert "KS = row_stride(K)" in text and "if constexpr (kTail)" in text
+    text = (_build.CSRC / "bilstm_wgrad_f32.cu").read_text().rsplit("#include", 1)[1]
+    assert "template <int TM, int TN>" in text
+    assert "__launch_bounds__(kThreads, Tile<TM, TN>::kBlocks)" in text
     # the f32 kernels take three tf32 passes a product, never one: the
     # sweep and the forward split both operands; the recurrence sweep splits
     # its weights once while staging them, and its dh product takes the

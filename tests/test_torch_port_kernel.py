@@ -208,21 +208,24 @@ def test_wide_wrappers_take_plain_versions_on_cpu():
 
 def test_wide_plan_fills_the_card_in_fewest_waves():
     """The scaled train shape at H = 256 with 16 clusters at once: the
-    cluster forward's 80-row tiles cover layer 0's five groups of 80 and
-    layer 1's 400 rows in one wave; its tiles are capped by shared memory,
-    so past them it takes the smallest tile of its fewest waves. The
-    cluster sweep's kind is gone with its kernel."""
+    tensor-core lite sweep's 32-row tiles cover layer 0's five groups of 80
+    (15 tiles) and layer 1's 400 rows (13) in two waves, as its 40-row ones
+    would, so it takes the smaller; with more room on the card it takes the
+    smallest tile of its fewest waves. The kinds of the CUDA-core cluster
+    kernels (the layer sweep's, and the recurrence op's forward, whose
+    source is gone) are refused."""
     sixteen = lambda R, smem: 16  # noqa: E731
-    assert lstm_cuda.wide_plan("fwd", 400, 5, 256, sixteen)[:2] == (10, 5)
-    assert lstm_cuda.wide_plan("fwd", 400, 1, 256, sixteen)[:2] == (7, 8)
-    assert lstm_cuda.wide_smem("fwd", 256, 10) <= lstm_cuda.SMEM_LIMIT
-    R, tiles, smem = lstm_cuda.wide_plan("fwd", 400, 5, 288, sixteen)
-    assert smem == lstm_cuda.wide_smem("fwd", 288, R) <= lstm_cuda.SMEM_LIMIT
-    with pytest.raises(ValueError, match="no kernel of kind 'bwd'"):
-        lstm_cuda.wide_plan("bwd", 400, 5, 256, sixteen)
+    assert lstm_cuda.wide_plan("lite_mma", 400, 5, 256, sixteen)[:2] == (32, 15)
+    assert lstm_cuda.wide_plan("lite_mma", 400, 1, 256, sixteen)[:2] == (32, 13)
+    R, tiles, smem = lstm_cuda.wide_plan("lite_mma", 400, 5, 256, sixteen)
+    assert smem == lstm_cuda.wide_smem("lite_mma", 256, R) <= lstm_cuda.SMEM_LIMIT
+    for kind in ("fwd", "bwd"):
+        with pytest.raises(ValueError, match=f"no kernel of kind '{kind}'"):
+            lstm_cuda.wide_plan(kind, 400, 5, 256, sixteen)
+        with pytest.raises(ValueError, match=f"no kernel of kind '{kind}'"):
+            lstm_cuda.wide_smem(kind, 256, 16)
     # more room on the card: the smallest tile that fits one wave
-    assert lstm_cuda.wide_plan("fwd", 400, 1, 128, lambda R, smem: 64)[0] == 2
-    assert lstm_cuda.wide_tiles(400, 5, 4) == 15 and lstm_cuda.wide_tiles(50, 1, 2) == 4
+    assert lstm_cuda.wide_plan("lite_mma", 400, 1, 128, lambda R, smem: 64)[0] == 16
 
 
 @pytest.mark.parametrize("H,E_parts,ok", [(256, [256, 256], True), (128, [128], True),
@@ -761,8 +764,7 @@ def test_recurrence_fwd_kernel_by_width_and_dtype(H, dtype, kernel):
     one block a row tile, whose f32 weights fit one block pre-split; from 96
     to 288 the forward whose blocks hold their share of the weights, with a
     row tile that fits shared memory; past 288 the forwards reading their
-    fragments from L2, up to the op's 1024 on the card; the cluster kernel
-    on no path; what none takes is refused by the op's check."""
+    fragments from L2, up to the op's 1024 on the card; what none takes is refused by the op's check."""
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
             lstm_cuda.recurrence_fwd_kernel(H, dtype)
@@ -799,7 +801,7 @@ def test_recurrence_fwd_mma_wrapper_takes_plain_version_on_cpu(H, D):
         want = recurrence_fwd(xg, valid, w, G, cd)
         for got in (lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd),
                     *(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=k)
-                      for k in (None, "lstm_recurrence_fwd_mma", "lstm_recurrence_fwd"))):
+                      for k in (None, "lstm_recurrence_fwd_mma"))):
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -1097,7 +1099,14 @@ def test_lite_mma_uneven_plan_at_256():
         ([40, 40], 80, torch.bfloat16, "bilstm_fwd_mma"),
         ([72], 72, torch.bfloat16, "bilstm_fwd_mma"),  # its <72, 72> instance: nine k16 steps
         ([72], 72, torch.float32, "bilstm_fwd"),       # f32 at H % 16 == 8: the CUDA cores
-        ([56], 56, torch.bfloat16, "bilstm_fwd"),      # bf16 at 56: not instantiated
+        # bf16 at 56: its <56, 56> instance, K = 112 in k16 steps (id kept
+        # from the CUDA-core forward's case); at 24 and 40 a k8 tail
+        pytest.param([56], 56, torch.bfloat16, "bilstm_fwd_mma",
+                     id="E_parts22-56-dtype22-bilstm_fwd"),
+        ([24], 24, torch.bfloat16, "bilstm_fwd_mma"),
+        ([40, 40], 40, torch.bfloat16, "bilstm_fwd_mma"),
+        ([56, 56], 48, torch.bfloat16, "bilstm_fwd_mma"),
+        ([8], 16, torch.bfloat16, "bilstm_fwd_mma"),
     ],
 )
 def test_fwd_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
@@ -1113,12 +1122,18 @@ def test_fwd_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
 def test_fwd_mma_plan(H, E):
     """One warp per 8 hidden units; a step's x chunks within the kernel's
     per-thread constant; the three-stage [x ; h] ring within a block's
-    static shared memory; K whole k16 steps; one and two input parts."""
+    static shared memory, its rows padded to an odd number of 16 bytes (8
+    elements past K where K % 16 == 0, 16 where K % 16 == 8: the k8 tail);
+    K whole k16 steps and at most one k8 step; one and two input parts."""
+    K = E + H
+    pad = lstm_cuda.fwd_mma_pad(K)
+    assert pad == (8 if K % 16 == 0 else 16) and ((K + pad) * 2 // 16) % 2 == 1
     for E_parts in ([E], [E // 2, E // 2]) if (E // 2) % 8 == 0 else ([E],):
         threads, smem = lstm_cuda.fwd_mma_plan(E_parts, H, torch.bfloat16)
         assert threads == 4 * H <= lstm_cuda.FWD_MMA_MAX_THREADS
         assert E <= lstm_cuda.FWD_MMA_MAX_CHUNKS * threads  # 8 rows x E / 8 chunks
-        assert (E + H) % 16 == 0 and smem <= 48 * 1024 <= lstm_cuda.SMEM_LIMIT
+        assert smem == 3 * 8 * (K + pad) * 2
+        assert K % 8 == 0 and smem <= 48 * 1024 <= lstm_cuda.SMEM_LIMIT
     with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
         lstm_cuda.fwd_mma_plan([E], H, torch.float32)
     with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
@@ -1143,8 +1158,12 @@ def test_fwd_mma_plan(H, E):
         ([64], 20, torch.bfloat16, None),              # H % 8 != 0
         ([32, 32], 32, torch.float32, "bilstm_wgrad_f32"),
         ([128], 128, torch.float32, "bilstm_wgrad_f32"),
-        ([80], 80, torch.float32, "bilstm_wgrad"),     # H % 32 != 0 keeps the CUDA-core kernel
-        ([16], 16, torch.float32, "bilstm_wgrad"),
+        # f32 at H % 32 == 16: the 64-row gate tiles (ids kept from the
+        # CUDA-core kernel's cases)
+        pytest.param([80], 80, torch.float32, "bilstm_wgrad_f32",
+                     id="E_parts15-80-dtype15-bilstm_wgrad"),
+        pytest.param([16], 16, torch.float32, "bilstm_wgrad_f32",
+                     id="E_parts16-16-dtype16-bilstm_wgrad"),
         ([64], 24, torch.float32, None),
     ],
 )
@@ -1758,11 +1777,11 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
     keeps its route, every wide layer has a forward kernel (the tensor-core
     one in bf16 at H = 128, 256 and 288 and in f32 at 128-288, the one-block
     ones in bf16 and f32 at 96),
-    and every layer whose widths are whole
-    128-row gate tiles and 8-column parts takes a tensor-core wgrad (f32
-    too), in bf16 every layer with H % 8 == 0 (the masked last gate tile);
-    the others keep ``bilstm_wgrad.cu``. Each at the layer's padded shape,
-    where every layer has a weight-gradient kernel."""
+    and every layer takes a tensor-core wgrad: in f32 every layer with
+    H % 16 == 0 (64-row gate tiles at H % 32 == 16), in bf16 every layer
+    with H % 8 == 0 (the masked last gate tile); none keeps
+    ``bilstm_wgrad.cu``. Each at the layer's padded shape, where every
+    layer has a weight-gradient kernel."""
     bf16 = dtype == torch.bfloat16
     for H0 in range(8, 272, 8):
         for E_parts in ([8], [16], [32], [48], [64], [96], [128], [256], [512],
@@ -1777,10 +1796,8 @@ def test_wide_forward_and_f32_wgrad_dispatch_change_no_route(dtype):
                     else "bilstm_fwd_wide_f32_resident" if H == 96
                     else "bilstm_fwd_wide_f32" if not bf16 else "bilstm_fwd_wide_mma")
             wgrad = lstm_cuda.wgrad_kernel(Ep, H, dtype)
-            if H % 32 == 0 or (bf16 and H % 8 == 0):
-                assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
-            else:
-                assert wgrad == "bilstm_wgrad", (E_parts, H)
+            assert H % (8 if bf16 else 16) == 0, (E_parts, H)
+            assert wgrad == ("bilstm_wgrad_mma" if bf16 else "bilstm_wgrad_f32"), (E_parts, H)
     for E_parts in ([256], [256, 256]):
         assert lstm_cuda.layer_route(E_parts, 256, dtype) == "wide"
 
@@ -2158,7 +2175,8 @@ def test_fwd_mma_plan_at_80_and_72():
     tiles, 8 x (160 + 8) x 2 x 3 = 8,064 bytes and 8 x (144 + 8) x 2 x 3 =
     7,296; K = 160 in ten k16 steps and 144 in nine; 100 blocks at the
     train step's 400 rows in 5 groups. It takes them only where
-    ``bilstm_fwd.cu`` took them, and no other width past 64."""
+    ``bilstm_fwd.cu`` took them, and no other width past 64 (nor a shape up
+    to 64 it has no instance for)."""
     bf16 = torch.bfloat16
     assert lstm_cuda.fwd_mma_plan([80], 80, bf16) == (320, 8 * 168 * 2 * 3) == (320, 8064)
     assert lstm_cuda.fwd_mma_plan([40, 40], 80, bf16) == (320, 8064)
@@ -2168,7 +2186,7 @@ def test_fwd_mma_plan_at_80_and_72():
     for E_parts, H in (([80], 80), ([40, 40], 80), ([72], 72)):
         lstm_cuda.launch_plan(E_parts, H, bf16)
         assert lstm_cuda.fwd_kernel(E_parts, H, bf16) == "bilstm_fwd_mma"
-    for E_parts, H in (([72], 80), ([80], 72), ([96], 96), ([56], 56), ([160], 80)):
+    for E_parts, H in (([72], 80), ([80], 72), ([96], 96), ([48], 56), ([160], 80)):
         with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
             lstm_cuda.fwd_mma_plan(E_parts, H, bf16)
     with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
@@ -2417,10 +2435,11 @@ def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
     fwd = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd_train,
            "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_train_f32}[
         lstm_cuda.fwd_kernel([16], 16, torch.float32)]
-    before = (fwd.launches, sweep.launches, lstm_cuda.bilstm_wgrad.launches)
+    wgrad = getattr(lstm_cuda, lstm_cuda.wgrad_kernel([16], 16, torch.float32))
+    before = (fwd.launches, sweep.launches, wgrad.launches)
     got = model_grads(cuda_device)
     torch.cuda.synchronize()
-    after = (fwd.launches, sweep.launches, lstm_cuda.bilstm_wgrad.launches)
+    after = (fwd.launches, sweep.launches, wgrad.launches)
     assert all(a - b == 2 for a, b in zip(after, before))  # one per layer
     want = model_grads(torch.device("cpu"))
     for name, grad in got.items():
@@ -2436,9 +2455,10 @@ def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
 def test_train_kernels_match_plain_on_card(cuda_device, dtype, E_parts, H, G, B):
     """Train forward, sweep and wgrad against their plain versions. Groups
     of 6 rows (H = 64, 80) and 8 rows (H = 32) are padded to whole row
-    tiles. At H = 80 (layer 0 of a model at embedding 80) the forward and
-    wgrad are CUDA-core ones, and the sweep is ``bilstm_bwd.cu`` in bf16 and
-    the one-stage 3xTF32 sweep in f32."""
+    tiles. At H = 80 (layer 0 of a model at embedding 80) the forward is
+    the tensor-core one in both dtypes (3xTF32 in f32), the wgrad the
+    tensor-core one (in f32 its 64-row tile), and the sweep the tensor-core
+    one in bf16 and the one-stage 3xTF32 sweep in f32."""
     T = 30
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, dtype,
                                                                  cuda_device)
@@ -2985,8 +3005,7 @@ def test_recurrence_fwd_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     and 3, G = 1, 2, 3 and 5 (groups of 12, 50, 10, 9, 8, 13, 7 and 80 rows:
     a short last tile inside most groups), T = 1, 3 and 24. The dispatch
     hands ``lstm_recurrence_fwd`` to it and its wrapper counts the launches;
-    the cluster kernel is not asked for by name there (refused: the
-    tensor-core forward took its route)."""
+    the dispatcher counts none."""
     cd = torch.bfloat16
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=T + B + H)
     want = recurrence_fwd(xg, valid, w, G, cd)
@@ -2995,10 +3014,6 @@ def test_recurrence_fwd_mma_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     before = [f.launches for f in wrappers]
     _close(lstm_cuda.lstm_recurrence_fwd_mma(xg, valid, w, G, cd), want, 3e-2)
     _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd), want, 3e-2)
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
-    with pytest.raises(ValueError, match="not asked for by name where the bf16 tensor-core"):
-        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
@@ -3812,9 +3827,8 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
     from lengths, with holes (an all-off and an all-on row) and all off;
     T = 1; groups of 8, 6, 9, 10, 80 and 81 rows, which leave short row
     tiles; the sweep with dhs and dcn None, and with all three None. The
-    dispatch names them (their wrappers count the launches); the cluster
-    forward and the bf16 sweep of 96-288 asked for by name refuse past 288
-    units."""
+    dispatch names them (their wrappers count the launches); the bf16 sweep
+    of 96-288 asked for by name refuses past 288 units."""
     cd, tol = torch.bfloat16, 2.0 ** -7
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                                   "holes" if mask == "off" else mask, seed=H + T)
@@ -3834,8 +3848,6 @@ def test_recurrence_wide_mma_kernels_match_plain_on_card(cuda_device, H, D, G, B
     for part in ((xg, valid, w, hs, cs, None, dhn, None, G, cd),
                  (xg, valid, w, hs, cs, None, None, None, G, cd)):
         _close([lstm_cuda.lstm_recurrence_bwd_wide_mma(*part)], [recurrence_sweep(*part)], tol)
-    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
-        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
     with pytest.raises(ValueError, match="lstm_recurrence_bwd_mid_mma and lstm_recurrence_fwd"):
         lstm_cuda.lstm_recurrence_bwd(*args, kernel="lstm_recurrence_bwd_mid_mma")
     torch.cuda.synchronize()
@@ -4374,7 +4386,7 @@ def test_recurrence_fwd_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     """The f32 tensor-core forward past 288 takes the plain twin for CPU
     tensors, counting no launch, and refuses operands that require grad;
     ``lstm_recurrence_fwd`` hands f32 past 288 to it only on the card and
-    reaches it by name (the cluster kernel by name too, on the CPU)."""
+    reaches it by name."""
     T, D, B, G, cd = 3, 2, 4, 2, torch.float32
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes")
     wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_fwd)
@@ -4382,7 +4394,7 @@ def test_recurrence_fwd_wide_f32_wrapper_takes_plain_version_on_cpu(H):
     want = recurrence_fwd(xg, valid, w, G, cd)
     assert all(torch.equal(a, b) for a, b in zip(
         lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd), want))
-    for kernel in (None, "lstm_recurrence_fwd_wide_f32", "lstm_recurrence_fwd"):
+    for kernel in (None, "lstm_recurrence_fwd_wide_f32"):
         assert all(torch.equal(a, b) for a, b in zip(
             lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=kernel), want))
     assert [f.launches for f in wrappers] == before
@@ -4468,8 +4480,7 @@ def test_recurrence_fwd_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, 
     off; T = 1; groups that leave short row tiles; up to 512 (32- or
     48-row tiles) and past it (two unit groups a warp, 16-row tiles) to the
     stop at 1024. The dispatch names it (its wrapper counts the launches),
-    a copy of the fragments built by the caller gives the same bits, and
-    the cluster forward asked for by name refuses past 288 units."""
+    and a copy of the fragments built by the caller gives the same bits."""
     cd, tol = torch.float32, 1e-4
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device,
                                             "holes" if mask == "off" else mask, seed=H + T)
@@ -4484,8 +4495,6 @@ def test_recurrence_fwd_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, 
     wf = lstm_cuda.recurrence_f32_weights(w)
     again = lstm_cuda.lstm_recurrence_fwd_wide_f32(xg, valid, w, G, cd, wf)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    with pytest.raises(ValueError, match="cluster kernel takes H <= 288"):
-        lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
@@ -4529,7 +4538,7 @@ def test_default_backend_runs_the_op_past_288_on_card(cuda_device, dtype):
     """Past 288 units a layer the default backend ("auto") takes the
     recurrence op: the two-layer model at embedding 320 launches the op's
     tensor-core kernels past 288 (in f32 the three-tf32-pass forward and
-    sweep, never the cluster kernels) and no layer kernel; its
+    sweep) and no layer kernel; its
     gradients equal the CPU plain path's (1e-4 x max(1, max|grad|) in f32,
     2^-7 in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5672,15 +5681,17 @@ def test_wgrad_split_takes_plain_version_on_cpu(E_parts, G):
 
 @pytest.mark.parametrize("E_parts,H,dtype,wgrad", [
     ([128], 128, torch.bfloat16, "split"), ([128, 128], 128, torch.bfloat16, "split"),
-    ([72, 72], 72, torch.bfloat16, "split"),  # wide at 96
+    # wide at 96, where the whole kernel is the faster (id kept from the
+    # split's case)
+    pytest.param([72, 72], 72, torch.bfloat16, "whole", id="E_parts2-72-dtype2-split"),
     ([128], 128, torch.float32, "whole"), ([32], 32, torch.bfloat16, "whole"),
     ([64, 64], 64, torch.bfloat16, "whole")])
 def test_layer_bwd_splits_the_wgrad_on_the_bf16_wide_route(monkeypatch, E_parts, H, dtype,
                                                             wgrad):
     """``layer_bwd`` takes ``bilstm_wgrad_split`` for every bf16 layer on the
-    wide route (96-288 units, padded ones too) and ``bilstm_wgrad`` for the
-    rest (f32, and the resident route); on the CPU both give the plain
-    sums."""
+    wide route past 96 units (128-288, padded ones too) and ``bilstm_wgrad``
+    for the rest (f32, the resident route, and the wide layers at 96); on
+    the CPU both give the plain sums."""
     cpu = torch.device("cpu")
     calls = []
     for name, tag in (("bilstm_wgrad_split", "split"), ("bilstm_wgrad", "whole")):
@@ -5693,8 +5704,9 @@ def test_layer_bwd_splits_the_wgrad_on_the_bf16_wide_route(monkeypatch, E_parts,
                               dy[:1], dy[2:3], dhn, dcn, dtype)
     assert calls == [wgrad]
     assert got[2].shape == (2, 4 * H, sum(E_parts)) and got[3].shape == (2, 2, 4 * H, H)
-    assert (lstm_cuda.layer_route(E_parts, H, dtype) == "wide"
-            and dtype == torch.bfloat16) == (wgrad == "split")
+    Hp = lstm_cuda.padded_width(E_parts, H, dtype)
+    assert (lstm_cuda.layer_route(E_parts, H, dtype) == "wide" and dtype == torch.bfloat16
+            and Hp > 96) == (wgrad == "split")
 
 
 @pytest.mark.cuda
@@ -6180,8 +6192,8 @@ def test_recurrence_model_at_embedding_128_on_card(cuda_device, monkeypatch, dty
     layers run the op at 128; in f32 its forward and sweep are the
     tensor-core ``lstm_recurrence_{fwd,bwd}_mid_f32.cu`` (three tf32 passes,
     one f32 fragment copy a layer for both), in bf16
-    ``lstm_recurrence_{fwd,bwd}_mid_mma.cu``; the cluster forward runs in
-    neither. Its gradients equal the CPU plain path's (1e-4 x max(1,
+    ``lstm_recurrence_{fwd,bwd}_mid_mma.cu``; the dispatchers count no
+    launch of their own. Its gradients equal the CPU plain path's (1e-4 x max(1,
     max|grad|) in f32, 2^-7 in bf16)."""
     from intrepppid_tpu_torch.ops import lstm
 
@@ -6262,9 +6274,8 @@ def test_recurrence_mid_mma_smem_and_plan(kind, H, rows, cluster, want):
 
 @pytest.mark.parametrize("H", [96, 160, 288])
 def test_recurrence_mid_mma_wrappers_take_plain_version_on_cpu(H):
-    """On the CPU the op's bf16 sweep and forward at 96-288, the dispatch
-    and the cluster kernels asked for by name run the plain twins bit for
-    bit and launch nothing, with the bf16 fragment copy handed in or not;
+    """On the CPU the op's bf16 sweep and forward at 96-288 and the
+    dispatch, by name or not, run the plain twins bit for bit and launch nothing, with the bf16 fragment copy handed in or not;
     under grad mode an operand that requires grad is refused."""
     T, D, B, G, cd = 4, 2, 6, 2, torch.bfloat16
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"),
@@ -6286,8 +6297,7 @@ def test_recurrence_mid_mma_wrappers_take_plain_version_on_cpu(H):
                 lstm_cuda.lstm_recurrence_fwd_mid_mma(xg, valid, w, G, cd, wf=wf),
                 lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, wf=wf),
                 lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd,
-                                              kernel="lstm_recurrence_fwd_mid_mma"),
-                lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd")):
+                                              kernel="lstm_recurrence_fwd_mid_mma")):
         assert all(torch.equal(a, b) for a, b in zip(got, want_fwd))
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -6344,7 +6354,7 @@ def test_recurrence_mid_mma_matches_plain_on_card(cuda_device, monkeypatch, H, c
     D = 1 and 2; groups of 30, 8, 13 and 9 rows, which leave short row
     tiles; dhs, dhn and dcn None in turn; the bf16 fragment copy handed in
     or built; the same bits twice. The wrappers count the launches; the
-    cluster kernels never launch."""
+    dispatchers count none."""
     cd = torch.bfloat16
     monkeypatch.setattr(lstm_cuda, "REC_MID_MMA_CLUSTER", {"bwd": {H: cluster},
                                                            "fwd": {H: cluster}})
@@ -6385,8 +6395,8 @@ def test_recurrence_mid_mma_matches_plain_on_card(cuda_device, monkeypatch, H, c
 def test_recurrence_mid_mma_autograd_on_card(cuda_device, monkeypatch, H, G, mask):
     """``fused_lstm_recurrence`` in bf16 at 96-288 on the card against the
     same op on the CPU (the plain twins): values and the gradients of xg
-    and w at 3e-2 x max(1, max|ref|). One step runs each new kernel once and
-    the cluster kernels never, and builds the bf16 fragment copy once, in
+    and w at 3e-2 x max(1, max|ref|). One step runs each new kernel once
+    (the dispatchers count none), and builds the bf16 fragment copy once, in
     the forward, for both."""
     T, D, B, cd = 40, 2, 5 * G, torch.bfloat16
     xg, valid, w, dhs, dhn, dcn = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), mask,
@@ -6527,7 +6537,7 @@ def test_recurrence_fwd_f32_wrappers_take_plain_version_on_cpu(H):
     assert (wf is None) == (H <= 64)
     calls = [wrapper(xg, valid, w, G, cd)] + [
         lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel=k, wf=wf)
-        for k in (None, name, "lstm_recurrence_fwd")]
+        for k in (None, name)]
     if wf is not None:
         calls.append(wrapper(xg, valid, w, G, cd, wf=wf))
     for got in calls:
@@ -6551,8 +6561,7 @@ def test_recurrence_fwd_f32_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     holes, D = 1, 2 and 3, G = 1, 2, 3 and 5 (groups of 12, 50, 10, 9, 8, 13,
     7 and 80 rows: a short last tile inside most groups), T = 1, 3 and 24;
     the same bits twice. The dispatch hands ``lstm_recurrence_fwd`` to it
-    and its wrapper counts the launches; the cluster forward asked for by
-    name agrees too."""
+    and its wrapper counts the launches; the dispatcher counts none."""
     cd = torch.float32
     xg, valid, w, _, _, _ = recurrence_case(T, D, B, H, G, cd, cuda_device, mask, seed=T + B + H)
     want = recurrence_fwd(xg, valid, w, G, cd)
@@ -6563,10 +6572,8 @@ def test_recurrence_fwd_f32_matches_plain_on_card(cuda_device, H, G, B, D, T, ma
     _close(got, want, 1e-4)
     again = lstm_cuda.lstm_recurrence_fwd_f32(xg, valid, w, G, cd)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
-           want, 1e-4)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
 
 
 @pytest.mark.cuda
@@ -6653,8 +6660,8 @@ def test_recurrence_fwd_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, m
     """The one-layer f32 model at embedding 128 on the recurrence backend at
     its run shape (400 rows in 5 groups, D = 2, T = 1500), the same rows at
     256 and at 96, on the dispatch's plan: against the plain twin at 1e-4 x
-    max(1, max|ref|), the same bits twice; the cluster forward asked for by
-    name agrees too."""
+    max(1, max|ref|), the same bits twice; the dispatcher counts no launch
+    of its own."""
     cd, G = torch.float32, 5
     xg, valid, w, _, _, _ = recurrence_case(1500, 2, 400, H, G, cd, cuda_device, mask, seed=H)
     want = recurrence_fwd(xg, valid, w, G, cd)
@@ -6662,11 +6669,8 @@ def test_recurrence_fwd_mid_f32_at_the_main_path_shape_on_card(cuda_device, H, m
     assert all(torch.equal(a, b) for a, b in zip(got, lstm_cuda.lstm_recurrence_fwd(
         xg, valid, w, G, cd, wf=lstm_cuda.recurrence_f32_weights(w))))
     _close(got, want, 1e-4)
-    before = lstm_cuda.lstm_recurrence_fwd.launches
-    _close(lstm_cuda.lstm_recurrence_fwd(xg, valid, w, G, cd, kernel="lstm_recurrence_fwd"),
-           want, 1e-4)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_recurrence_fwd.launches == before + 1
+    assert lstm_cuda.lstm_recurrence_fwd.launches == 0
 
 
 @pytest.mark.cuda
@@ -6700,7 +6704,7 @@ def test_recurrence_backend_f32_steps_on_card(cuda_device, monkeypatch, embeddin
     """The f32 two-layer model on the recurrence backend at the manuscript
     width (E = H = 64) and at embedding 80 (run at 96): its forward is the
     f32 tensor-core forward of those widths (``lstm_recurrence_fwd_f32`` at
-    64, ``lstm_recurrence_fwd_mid_f32`` at 96), never the cluster forward;
+    64, ``lstm_recurrence_fwd_mid_f32`` at 96; the dispatcher counts none);
     its gradients equal the CPU plain path's (1e-4 x max(1, max|grad|))."""
     from intrepppid_tpu_torch.ops import lstm
 
@@ -6716,6 +6720,290 @@ def test_recurrence_backend_f32_steps_on_card(cuda_device, monkeypatch, embeddin
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=embedding)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
+            1.0, float(ref.abs().max())), name
+
+
+# ---- the bf16 resident forward at its k8-tail shapes and the f32 wgrad's 64-row tile
+# the bf16 resident shapes (H, E) the tensor-core forward took from
+# bilstm_fwd.cu, whose K = E + H is 8 mod 16 at five of them (a k8 step)
+K8_FWD_SHAPES = ((8, 8), (8, 16), (16, 8), (24, 24), (24, 48), (40, 40), (40, 80), (48, 80),
+                 (48, 112), (56, 56), (56, 112))
+# the f32 layers' (Hp, E_parts) that took the wgrad's 64-row tile from
+# bilstm_wgrad.cu, with the tile's source columns (E + H rounded up to 32)
+NARROW_WGRAD_SHAPES = (((8,), 16, 32), ((8, 8), 16, 32), ((16,), 16, 32), ((16, 16), 16, 64),
+                       ((40,), 48, 96), ((40, 40), 48, 128), ((48,), 48, 96),
+                       ((48, 48), 48, 160), ((72,), 80, 160), ((80,), 80, 160))
+
+
+@pytest.mark.parametrize("H,E", K8_FWD_SHAPES)
+def test_fwd_mma_takes_the_k8_shapes(H, E):
+    """Each of the 11 shapes is a tensor-core forward instance where
+    ``bilstm_fwd.cu`` took it before (``launch_plan`` still does, so no
+    layer changes its route): one warp per 8 units (one warp a block at
+    H = 8), the three-stage ring padded to an odd number of 16 bytes a row
+    (16 elements where K % 16 == 8); the resident route takes the layer at
+    its own widths, one input part and, where it halves into parts of 8,
+    two."""
+    bf16, K = torch.bfloat16, E + H
+    for E_parts in ([E], [E // 2, E // 2]) if (E // 2) % 8 == 0 else ([E],):
+        lstm_cuda.launch_plan(E_parts, H, bf16)
+        assert lstm_cuda.fwd_kernel(E_parts, H, bf16) == "bilstm_fwd_mma"
+        assert lstm_cuda.fwd_mma_plan(E_parts, H, bf16) == (
+            4 * H, 3 * 8 * (K + (16 if K % 16 else 8)) * 2)
+        assert lstm_cuda.fwd_kernel(E_parts, H, torch.float32) != "bilstm_fwd_mma"
+    assert (K % 16 == 8) == ((H, E) in ((8, 16), (16, 8), (24, 48), (40, 80), (56, 112)))
+
+
+def test_fwd_mma_k8_wrappers_take_plain_versions_on_cpu():
+    """On the CPU the tensor-core forward's wrappers and the dispatch run the
+    plain twin bit for bit at a k8-tail shape (H = 24, E = 24 + 24: K = 72)
+    and at H = 56, counting no launch."""
+    cd = torch.bfloat16
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
+    before = [f.launches for f in wrappers]
+    for E_parts, H, G in (([24, 24], 24, 1), ([56], 56, 3)):
+        parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 9, E_parts, H, G, cd,
+                                                               torch.device("cpu"), seed=H)
+        args = (parts, lengths, w_ih, w_hh, bias, cd)
+        want = bidir_layer(*args, with_states=True)
+        for got in (lstm_cuda.bilstm_layer_fwd_train_mma(*args),
+                    lstm_cuda.bilstm_layer_fwd_train(*args)):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        for got in (lstm_cuda.bilstm_layer_fwd_mma(*args), lstm_cuda.bilstm_layer_fwd(*args)):
+            assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want[:4]))
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.parametrize("E_parts,H,N", NARROW_WGRAD_SHAPES)
+def test_wgrad_f32_narrow_tile_plan(E_parts, H, N):
+    """The f32 layers at H % 32 == 16 take the 3xTF32 wgrad with 64 gate
+    rows (a divisor of 4H) by the whole E + H row rounded up to 32 columns,
+    two blocks an SM: at the train shape (400 rows, T = 1500; layer 0 in 5
+    groups, the stacked layer in 1) the split fills whole waves of 264
+    blocks, and at layer 0 of the model at embedding 80 (E = H = 80) five
+    gate tiles in 21 splits, 1,050 blocks in four waves. The stages fit two
+    blocks in an SM's shared memory (three at 160 columns, four below)."""
+    f32 = torch.float32
+    lstm_cuda.wgrad_f32_check(list(E_parts), H, f32)
+    assert lstm_cuda.wgrad_kernel(list(E_parts), H, f32) == "bilstm_wgrad_f32"
+    tile = lstm_cuda.wgrad_f32_tile(E_parts, H)
+    assert tile == (64, N) and lstm_cuda.wgrad_f32_blocks(tile) == 2
+    assert (N - 32) < sum(E_parts) + H <= N and (4 * H) % 64 == 0
+    assert lstm_cuda.wgrad_f32_stages(tile) == (3 if N == 160 else 4)
+    assert 2 * (lstm_cuda.wgrad_f32_smem(tile) + lstm_cuda.BLOCK_SMEM_RESERVE) <= \
+        lstm_cuda.SM_SMEM
+    G = 5 if len(E_parts) == 1 else 1
+    m_tiles, n_tiles, splits = lstm_cuda.wgrad_f32_plan(1500, 400, G, E_parts, H, 132)
+    assert (m_tiles, n_tiles) == (4 * H // 64, 1)
+    blocks = m_tiles * n_tiles * 2 * G * splits
+    assert blocks <= lstm_cuda.WGRAD_F32_MAX_WAVES * 2 * 132
+    if (tuple(E_parts), H) in (((80,), 80), ((72,), 80)):
+        assert (splits, blocks, -(-blocks // 264)) == (21, 1050, 4)
+    else:
+        assert blocks % 264 == 0
+    # the bf16 layers keep their own kernel; a width past 160 columns takes
+    # several column tiles of 160, the last masked
+    assert lstm_cuda.wgrad_kernel(list(E_parts), H, torch.bfloat16) == "bilstm_wgrad_mma"
+    assert lstm_cuda.wgrad_f32_tile([208], 48) == (64, 160)
+    assert lstm_cuda.wgrad_f32_plan(30, 20, 1, [208], 48, 132)[:2] == (3, 2)
+
+
+def test_wgrad_f32_tiles_and_their_plans():
+    """H % 32 == 0 keeps the 128 x 128 tile (one block an SM), its plans as
+    before; the tiles timed against the 64-row one at E = H = 80 (128 x
+    160, its last gate tile masked; 64 x 64, its last column tile masked)
+    are built and planned with their own blocks an SM; a tile that is not
+    built is refused, and H % 16 != 0 in f32 still is."""
+    f32 = torch.float32
+    for E_parts, H in (([64], 64), ([256, 256], 256), ([32, 32], 32), ([128], 128)):
+        assert lstm_cuda.wgrad_f32_tile(E_parts, H) == (128, 128)
+        assert lstm_cuda.wgrad_f32_plan(1500, 400, 5, E_parts, H, 132)[:2] == \
+            lstm_cuda.wgrad_mma_plan(1500, 400, 5, E_parts, H)[:2]
+    assert lstm_cuda.wgrad_f32_blocks((128, 128)) == 1
+    assert lstm_cuda.wgrad_f32_smem((128, 128)) == lstm_cuda.WGRAD_F32_SMEM
+    assert set(lstm_cuda.WGRAD_F32_TILES) == {(128, 128), (128, 160), (64, 32), (64, 64),
+                                              (64, 96), (64, 128), (64, 160)}
+    assert lstm_cuda.wgrad_f32_plan(1500, 400, 5, [80], 80, 132, (128, 160))[:2] == (3, 1)
+    assert lstm_cuda.wgrad_f32_plan(1500, 400, 5, [80], 80, 132, (64, 64))[:2] == (5, 3)
+    for tile in lstm_cuda.WGRAD_F32_TILES:
+        assert lstm_cuda.wgrad_f32_smem(tile) <= lstm_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="H % 16 == 0"):
+        lstm_cuda.wgrad_f32_check([24], 24, f32)
+    cpu = torch.device("cpu")
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 6, [8], 16, 2, f32, cpu)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, f32)[:2]
+    dgc = torch.zeros(2, 4, 6, 64)
+    with pytest.raises(ValueError, match="built for the tiles"):
+        lstm_cuda.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, 2, tile=(64, 48))
+
+
+@pytest.mark.parametrize("tile", [None, (64, 32), (128, 160)])
+def test_wgrad_f32_narrow_tile_wrappers_take_plain_versions_on_cpu(tile):
+    """On the CPU the f32 wgrad's wrapper (at its own tile or one pinned)
+    and the dispatch run the plain twin bit for bit at H = 16, E = 8 + 8,
+    counting no launch."""
+    f32, cpu = torch.float32, torch.device("cpu")
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 6, [8, 8], 16, 2, f32, cpu)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, f32)[:2]
+    dgc = torch.rand(2, 5, 6, 64, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, 2)
+    wrappers = (lstm_cuda.bilstm_wgrad, lstm_cuda.bilstm_wgrad_f32)
+    before = [f.launches for f in wrappers]
+    for got in (lstm_cuda.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, 2, tile=tile),
+                lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, 2)):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 5, 1])
+@pytest.mark.parametrize("H,E", K8_FWD_SHAPES)
+def test_fwd_mma_k8_shapes_match_plain_on_card(cuda_device, T, H, E):
+    """Each new instance of the tensor-core forward against its plain twin
+    in bf16 at 3e-2 x max(1, max|ref|), both variants: one input part (two
+    where E > H, as the stacked layers have), lengths mixing 0, 1, T and random
+    values, 27 rows in 3 groups of 9 (a short last tile in each group), and
+    rows 8-15 short of T; T = 30, 5 and 1. The dispatch hands the forward
+    to it (its wrappers count the launches) and the two variants give the
+    same hs bits; ``bilstm_fwd.cu`` asked for by name agrees."""
+    cd, B, G = torch.bfloat16, 27, 3
+    E_parts = [E // 2] * 2 if E > H else [E]  # the stacked layers' two parts
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=T + H + E)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=max(1, T // 3))
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    wrappers = (lstm_cuda.bilstm_layer_fwd, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
+    before = [f.launches for f in wrappers]
+    got = lstm_cuda.bilstm_layer_fwd_train(*args)
+    ev = lstm_cuda.bilstm_layer_fwd(*args)
+    _close(got, want, 3e-2)
+    _close(ev, want[:4], 3e-2)
+    assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
+    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 3e-2)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E_parts,H", [([56], 56), ([56, 56], 56)])
+def test_fwd_mma_at_56_at_the_main_path_shape_on_card(cuda_device, E_parts, H):
+    """Both layers of the bf16 model at embedding 56 at their run shape
+    (400 rows, T = 1500; layer 0 in 5 groups with the main path's lengths,
+    the stacked layer in 1): both variants against the plain twin at 3e-2 x
+    max(1, max|ref|), the same bits twice."""
+    cd, T, B = torch.bfloat16, 1500, 400
+    G = 5 if len(E_parts) == 1 else 1
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
+                                                           seed=len(E_parts))
+    lengths = _main_path_lengths(lengths, G, T)
+    args = (parts, lengths, w_ih, w_hh, bias, cd)
+    want = bidir_layer(*args, with_states=True)
+    got = lstm_cuda.bilstm_layer_fwd_train(*args)
+    _close(got, want, 3e-2)
+    _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 3e-2)
+    assert all(torch.equal(a, b) for a, b in zip(lstm_cuda.bilstm_layer_fwd_train_mma(*args),
+                                                 got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(30, 27), (1, 27), (3, 400)])
+@pytest.mark.parametrize("E_parts,H,N", NARROW_WGRAD_SHAPES)
+def test_wgrad_f32_narrow_tile_matches_plain_on_card(cuda_device, T, B, E_parts, H, N):
+    """The f32 wgrad's 64-row tile against its plain twin at 1e-4 x max(1,
+    max|ref|) at each of the 10 f32 shapes it took: 27 rows in 3 groups
+    (layer 0's grouping; 1 for the stacked layer), T = 1 (every h_prev past
+    an end), and T = 3 at 400 rows (more splits than positions). The
+    dispatch hands ``bilstm_wgrad`` to it (its wrapper counts the launches,
+    ``bilstm_wgrad.cu``'s stays), and ``bilstm_wgrad.cu`` asked for by name
+    agrees."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    G = 3 if len(E_parts) == 1 else 1
+    if B == 400:
+        G = 5 if G == 3 else 1
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, list(E_parts), H, G, cd,
+                                                           cuda_device, seed=T + B + H)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd)[:2]
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    dgc = torch.rand(2, T, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    before = (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), want, 1e-4)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches) == (
+        before[0], before[1] + 1)
+    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 1e-4)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(64, 160), (128, 160), (64, 64), (64, 32), (128, 128)])
+def test_wgrad_f32_tiles_at_80_match_plain_on_card(cuda_device, tile):
+    """Layer 0 of the f32 model at embedding 80 (E = H = 80, 4H = 320) at
+    each tile it can be pinned to: 64 x 160 (the dispatch's), 128 x 160 and
+    128 x 128 with the last gate tile masked, 64 x 64 and 64 x 32 with the
+    last column tile masked; 40 rows in 5 groups, T = 24, at 1e-4 x max(1,
+    max|ref|). The card holds two blocks of a 64-row tile on an SM and one
+    of a 128-row one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, T, B, G = torch.float32, 24, 40, 5
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [80], 80, G, cd, cuda_device,
+                                                           seed=7)
+    hs_f, hs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd)[:2]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    dgc = torch.rand(2, T, B, 320, generator=g, device=cuda_device) * 2 - 1
+    want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
+    _close(lstm_cuda.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, G, tile=tile), want, 1e-4)
+    lib = lstm_cuda._kernels("bilstm_wgrad_f32")
+    assert lib.bilstm_wgrad_f32_occupancy(*tile) == lstm_cuda.wgrad_f32_blocks(tile)
+
+
+@pytest.mark.cuda
+def test_bf16_model_at_embedding_56_on_card(cuda_device):
+    """The bf16 two-layer model at embedding 56: both layers' forwards (the
+    train variant in the step) on the tensor-core forward's <56, 56> and
+    <56, 112> instances, never ``bilstm_fwd.cu``; its gradients equal the
+    CPU plain path's at 2^-7 x max(1, max|grad|)."""
+    cd = torch.bfloat16
+    wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_layer_fwd_train,
+                lstm_cuda.bilstm_layer_fwd)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=56)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=56)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 2 ** -7 * max(
+            1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_f32_model_at_embedding_80_wgrad_on_card(cuda_device):
+    """The f32 two-layer model at embedding 80: layer 0's weight gradients
+    (E = H = 80) on the 3xTF32 wgrad's 64-row tile and the stacked layer's
+    (run wide at 96) on its 128-row one, so the f32 wgrad launches twice and
+    ``bilstm_wgrad.cu`` never; its gradients equal the CPU plain path's at
+    1e-4 x max(1, max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    assert lstm_cuda.wgrad_f32_tile([80], 80) == (64, 160)
+    assert lstm_cuda.wgrad_f32_tile([80, 80], 96) == (128, 128)
+    wrappers = (lstm_cuda.bilstm_wgrad_f32, lstm_cuda.bilstm_wgrad)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=80)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=80)
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(

@@ -358,9 +358,8 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
     lite sweep at Hp = 96 (the stacked layers of 65-96 units and layer 0 of
     81-96) ``bilstm_bwd_lite_mma_resident`` where it was
     ``bilstm_bwd_lite``. f32 changes nothing; bf16 keeps ``bilstm_fwd.cu``
-    at the resident shapes the tensor-core forward has no instance for (H
-    % 16 == 8 up to 56, and H = 48 at E = 80 and 112), none at Hp = 72 or
-    80."""
+    at no resident shape (since the tensor-core forward's instances with a
+    k8 tail took H % 16 == 8 up to 56 and H = 48 at E = 80 and 112)."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "FWD_MMA_SHAPES",
@@ -396,13 +395,95 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
         assert after["train layer 0", width][3][:2] == ("bilstm_fwd_mma", "bilstm_bwd_mma")
         assert after["train stacked", width][:3] == ("wide", 96, (80, 80))
         assert after["train stacked", width][3][2] == "bilstm_bwd_lite_mma_resident"
-    # what bilstm_fwd.cu keeps in bf16 (ROADMAP B2.2): no shape at Hp = 72 or 80
+    # what bilstm_fwd.cu keeps in bf16: no shape (ROADMAP B2.4)
     assert {(Hp, Ep) for route, Hp, Ep, kernels in after.values()
-            if route == "resident" and kernels[0] == "bilstm_fwd"} == {
-        (8, (8,)), (8, (8, 8)), (16, (8,)), (24, (24,)), (24, (24, 24)), (40, (40,)),
-        (40, (40, 40)), (48, (40, 40)), (48, (56, 56)), (56, (56,)), (56, (56, 56))}
+            if route == "resident" and kernels[0] == "bilstm_fwd"} == set()
     assert not any(p[3][2] == "bilstm_bwd_lite" and p[1] == 96 for p in after.values()
                    if p[0] == "wide")
+
+
+# the bf16 resident shapes that took the tensor-core forward's instances
+# with a k8 tail (and the <56, 56>, <56, 112>, <48, 80>, <8, 16> ones), and
+# the f32 shapes that took the 64-row wgrad tile, from bilstm_fwd.cu and
+# bilstm_wgrad.cu
+K8_FORWARD_SHAPES = {(8, (8,)), (8, (8, 8)), (16, (8,)), (24, (24,)), (24, (24, 24)),
+                     (40, (40,)), (40, (40, 40)), (48, (40, 40)), (48, (56, 56)), (56, (56,)),
+                     (56, (56, 56))}
+NARROW_WGRAD_SHAPES = {(16, (8,)), (16, (8, 8)), (16, (16,)), (16, (16, 16)), (48, (40,)),
+                       (48, (40, 40)), (48, (48,)), (48, (48, 48)), (80, (72,)), (80, (80,))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_k8_forward_narrow_wgrad_and_96_split_change_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, with the bf16 tensor-core forward's 11 newest
+    instances, the f32 wgrad's 64-row tile (``WGRAD_F32_H_STEP`` at 32) and
+    the whole wgrad at Hp = 96 on the bf16 wide route (``WGRAD_SPLIT_PAST_H``
+    at 0) set back, every layer keeps its route and padded shape, and the
+    same kernel at every step except: in bf16 the resident forward at the
+    11 shapes of ``K8_FORWARD_SHAPES`` is ``bilstm_fwd_mma`` where it was
+    ``bilstm_fwd``, and the wide layers at Hp = 96 take the weight
+    gradients whole (``bilstm_wgrad_mma``) where they were split; in f32
+    the wgrad at the 10 shapes of ``NARROW_WGRAD_SHAPES`` is
+    ``bilstm_wgrad_f32`` where it was ``bilstm_wgrad``. No layer of either
+    dtype names ``bilstm_fwd`` or ``bilstm_wgrad`` now."""
+    def plans():
+        return {k: p + (lstm_cuda.wgrad_split(p[0], p[1], dtype),)
+                for k, p in _grid_plans(dtype).items()}
+
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "FWD_MMA_SHAPES", lstm_cuda.FWD_MMA_SHAPES[:9])
+            m.setattr(lstm_cuda, "WGRAD_F32_H_STEP", 32)
+            m.setattr(lstm_cuda, "WGRAD_SPLIT_PAST_H", 0)
+            lstm_cuda._layer_plan.cache_clear()
+            before = plans()
+        lstm_cuda._layer_plan.cache_clear()
+        after = plans()
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels, split) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if split != before[key][4]:
+            diff.add(("split", "whole"))
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
+            assert not diff, key
+        assert "bilstm_fwd" not in kernels and "bilstm_wgrad" not in kernels, key
+    if dtype == torch.float32:
+        assert changed == {("bilstm_wgrad", "bilstm_wgrad_f32"): {
+            ("resident", Hp, Ep) for Hp, Ep in NARROW_WGRAD_SHAPES}}
+        assert after["train layer 0", 80][3] == ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage",
+                                                 "bilstm_wgrad_f32")
+        return
+    assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_mma"), ("split", "whole")}
+    assert changed["bilstm_fwd", "bilstm_fwd_mma"] == {
+        ("resident", Hp, Ep) for Hp, Ep in K8_FORWARD_SHAPES}
+    assert {(route, Hp) for route, Hp, _ in changed["split", "whole"]} == {("wide", 96)}
+    # the model at embedding 56: both layers on the tensor-core forward
+    assert after["train layer 0", 56][3][0] == after["train stacked", 56][3][0] == "bilstm_fwd_mma"
+    # the bf16 models at embedding 72 and 80: the stacked layer's wgrad whole
+    for width in (72, 80):
+        assert after["train stacked", width][1] == 96 and not after["train stacked", width][4]
+    assert after["train layer 0", 160][4] and after["train stacked", 128][4]
+
+
+def test_wgrad_split_by_width_and_dtype():
+    """The bf16 wide route splits a layer's weight gradients (dW_ih on
+    cuBLAS, dW_hh on the tensor-core kernel) past 96 units only: at 96 the
+    whole kernel is the faster; f32 and the resident route never split."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert lstm_cuda.WGRAD_SPLIT_PAST_H == 96
+    for H in (128, 160, 192, 224, 256, 288):
+        assert lstm_cuda.wgrad_split("wide", H, bf16)
+        assert not lstm_cuda.wgrad_split("wide", H, f32)
+    assert not lstm_cuda.wgrad_split("wide", 96, bf16)
+    assert not lstm_cuda.wgrad_split("wide", 96, f32)
+    for H in (16, 56, 64, 80):
+        assert not lstm_cuda.wgrad_split("resident", H, bf16)
 
 
 # Kernel slices that each took some widths from older kernels: the
@@ -619,10 +700,12 @@ def test_padded_recurrence_op_equals_unpadded_plain_op(dtype):
     assert_within((xg_r.grad, w_r.grad), (dxg, dw), TOL[dtype], "backward")
 
 
-@pytest.mark.parametrize("embedding", [48, 50, 80, 100, 112, 272])
+@pytest.mark.parametrize("embedding", [48, 50, 80, 100, 112, 272, 16])
 def test_two_layer_model_matches_jax(embedding):
     """A two-layer model (the factory's default) at embedding 48, 50, 80,
-    100, 112 and 272, f32, dropout off: the eval step's loss and aux values (the eval
+    100, 112, 272 and 16 (layer 0 at E = H = 16 and the stacked layer at
+    16 + 16, two of the f32 wgrad's 64-row tile shapes; 48's are two more),
+    f32, dropout off: the eval step's loss and aux values (the eval
     forward) and one train step's loss, aux values and every gradient
     against JAX ``step(train=True)`` (with every dropout rate 0 its forward
     is the eval forward)."""
@@ -723,6 +806,17 @@ def test_two_layer_bf16_model_at_embedding_72_matches_jax():
     and JAX round the streams in bf16 at other places and sum in f32 in
     another order; measured at most 5.9e-3 x max|ref|, layer 0's w_hh)."""
     _bf16_model_matches_jax(72)
+
+
+def test_two_layer_bf16_model_at_embedding_56_matches_jax():
+    """The bf16 two-layer model at embedding 56 (layer 0 at E = H = 56, the
+    stacked layer at 56 + 56: the tensor-core forward's <56, 56> and
+    <56, 112> instances, K = 112 and 168, the latter ending in a k8 step;
+    the sweep's H % 16 == 8 instances) against JAX in bf16, dropout off,
+    with the tolerances of the model at embedding 72: loss and aux to rtol
+    1e-5, every gradient within 2^-6 x max|ref| + 1e-7. On the CPU the port
+    runs the kernels' plain twins along the same routes."""
+    _bf16_model_matches_jax(56)
 
 
 def test_two_layer_bf16_model_at_embedding_160_matches_jax():
