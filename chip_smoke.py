@@ -14,18 +14,16 @@ exits non-zero with no result):
    plain PyTorch version on the card, at the serve path's shapes (800 rows,
    T = 1500, H = 64, layer 0 at E = 64 and layer 1 at E = 2 x 64) in f32
    (``bilstm_fwd_f32``, three tf32 passes on the tensor cores) and bf16
-   (``bilstm_fwd_mma``), and the CUDA-core ``bilstm_fwd.cu`` asked for by
-   name, with lengths mixing 0, 1, T and random values, plus H = 32 at a
-   smaller size; then the kernel and the CUDA-core one in turns (new, old,
-   old, new), the plain version and cuDNN's ``nn.LSTM(bidirectional=True)``
-   (a yardstick the port never calls) timed with CUDA events at full
-   lengths;
+   (``bilstm_fwd_mma``), with lengths mixing 0, 1, T and random values,
+   plus H = 32 at a smaller size; then the kernel (twice), the plain
+   version and cuDNN's ``nn.LSTM(bidirectional=True)`` (a yardstick the
+   port never calls) timed with CUDA events at full lengths;
 3. serve — ``Serve.start`` at the manuscript width (vocab 250, E = 64,
    2 layers, f32) with seeded random weights written as a reference-layout
    ``.ckpt``, answering real HTTP requests on 127.0.0.1; probabilities are
    checked against the port's CPU plain forward, and the f32 tensor-core
-   forward's launch counter must rise during the requests and
-   ``bilstm_fwd.cu``'s stay at 0;
+   forward's launch counter must rise during the requests and the bf16
+   one's stay at 0;
 4. train_kernel — the train step's kernels (the forward in both variants,
    the two backward sweeps and the weight-gradient kernel) against their
    plain versions at the train shapes (400 rows in 5 weight groups of 80,
@@ -36,8 +34,8 @@ exits non-zero with no result):
    ``bilstm_bwd_mma``, ``bilstm_wgrad_mma``), in f32 the forward, the sweep
    and wgrad are the 3xTF32 tensor-core kernels
    (``bilstm_layer_fwd(_train)_f32``, ``bilstm_bwd_f32``,
-   ``bilstm_wgrad_f32``), and the CUDA-core ones, asked for by name, are
-   held too, and the twins with their products in one tf32 pass are
+   ``bilstm_wgrad_f32``), and the CUDA-core sweep ``bilstm_bwd.cu``, asked
+   for by name, is held too, and the twins with their products in one tf32 pass are
    recorded beside them (a control for the f32 tolerance); ragged cases (27
    rows in 3 groups, T = 1, rows of length 0; the one-stage f32 sweep at
    E = H = 80, T = 1 and 5; the forward at E = H = 80 and the one-block
@@ -46,17 +44,14 @@ exits non-zero with no result):
    model at embedding 80: E = H = 80, 5 groups, two dy streams a direction)
    the 3xTF32 forward ``bilstm_fwd_f32`` (both variants, its 320-thread
    instance) in f32 and the tensor-core forward ``bilstm_fwd_mma`` (its
-   <80, 80> instance, in turns with ``bilstm_fwd.cu`` by name) in bf16,
-   ``bilstm_wgrad_f32`` (its 64 x 160 tile; each tile of
-   ``WGRAD_TILES_80`` pinned too) in f32 and ``bilstm_wgrad_mma`` (its last
-   gate tile masked) in bf16 (both in turns with ``bilstm_wgrad.cu`` by
-   name), the
-   one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32 (in turns with
-   ``bilstm_bwd.cu`` by name) and the tensor-core sweep ``bilstm_bwd_mma``
-   (its <80, 80> instance) in bf16; then
-   each kernel, the
-   new and the old in turns (new, old, old, new, in the same run), and a
-   PyTorch yardstick
+   <80, 80> instance) in bf16, ``bilstm_wgrad_f32`` (its 64 x 160 tile;
+   each tile of ``WGRAD_TILES_80`` pinned too, in turns with the
+   dispatch's) in f32 and ``bilstm_wgrad_mma`` (its last gate tile masked)
+   in bf16, the one-stage 3xTF32 sweep ``bilstm_bwd_f32_onestage`` in f32
+   (in turns with ``bilstm_bwd.cu`` by name) and the tensor-core sweep
+   ``bilstm_bwd_mma`` (its <80, 80> instance) in bf16; then each kernel
+   (the sweeps in turns with ``bilstm_bwd.cu``: new, old, old, new, in the
+   same run), and a PyTorch yardstick
    (cuDNN training and inference forward and backward-data in f32 and in
    bf16, cuBLAS products in the same dtype) timed with CUDA events at full
    lengths, TF32 off; the plain versions are timed once, in the check;
@@ -66,18 +61,16 @@ exits non-zero with no result):
    warm-up steps, 12 timed steps and an eval step, a profiled step, and
    each kernel's launch count: the tensor-core forward (both variants),
    ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma`` must be > 0 and the
-   CUDA-core forward, sweep and wgrad and the f32 tensor-core kernels 0;
+   CUDA-core sweep and the f32 tensor-core kernels 0;
    then 2 steps of the same model in f32 (and a profiled one), which must
    run ``bilstm_layer_fwd_train_f32``, ``bilstm_bwd_f32`` and
-   ``bilstm_wgrad_f32`` and never the CUDA-core forward or wgrad, and 2
+   ``bilstm_wgrad_f32``, and 2
    steps and an eval step of the two-layer model at embedding 80 in f32 and
    in bf16: layer 0's forward (both variants) ``bilstm_fwd_f32`` in f32
-   and ``bilstm_fwd_mma`` in bf16 (``bilstm_fwd.cu`` never), its wgrad
+   and ``bilstm_fwd_mma`` in bf16, its wgrad
    ``bilstm_wgrad_f32``'s 64-row tile in f32 and ``bilstm_wgrad_mma`` in
-   bf16 (``bilstm_wgrad.cu`` never; in bf16 no ``dW_ih`` products either:
-   the stacked layer's weight gradients whole at 96), the f32 step in turns
-   with layer 0's wgrad pinned to ``bilstm_wgrad.cu`` (``turns``), its
-   sweep ``bilstm_bwd_f32_onestage`` in
+   bf16 (in bf16 no ``dW_ih`` products: the stacked layer's weight
+   gradients whole at 96), its sweep ``bilstm_bwd_f32_onestage`` in
    f32 and ``bilstm_bwd_mma`` in bf16 (``bilstm_bwd.cu`` never); the
    stacked layer padded to H = 96 on the wide route (the tensor-core
    gates, the one-block wide forward, ``bilstm_fwd_wide_f32_resident`` in
@@ -113,25 +106,25 @@ exits non-zero with no result):
    ``bilstm_bwd_lite_f32_resident``, beside its bounds and cuDNN; layer 0
    of the bf16 model at embedding 72 (E = H = 72): the tensor-core sweep
    ``bilstm_bwd_mma`` (its <72, 72> instance) and forward
-   ``bilstm_fwd_mma`` (both variants, its <72, 72> instance, in turns with
-   ``bilstm_fwd.cu`` by name), beside their bounds and cuDNN;
-   ``bilstm_bwd.cu`` in bf16 on its main path (the stacked layer at
-   embedding 16, E = 16 + 16, H = 16), timed beside its bounds and cuDNN;
-   the tensor-core forward's <56, 56> and <56, 112> instances on both
-   layers of the bf16 model at embedding 56 (``bilstm_fwd.cu``'s main path
-   before them), timed in turns with ``bilstm_fwd.cu`` by name, beside
-   their bounds and cuDNN; every instance of ``K8_FWD_SHAPES`` (``k8_fwd``:
-   both variants against the twin at 27 rows in 3 groups, T = 1 and 5, then
-   the train variant in turns with ``bilstm_fwd.cu`` by name at the train
-   shape; registers and spills) and the f32 wgrad's 64-row tile at each of
-   ``NARROW_WGRAD_SHAPES`` (``narrow_wgrad``: against the twin at T = 300
-   and at 27 rows, then in turns with ``bilstm_wgrad.cu`` by name at the
-   train shape, beside its bounds at 495/3 and 67 and cuBLAS f32; each
-   tile's registers, spills and blocks an SM); the
-   bf16 two-layer model at embedding 72 at the train shape (2 steps and an
-   eval step, timed: layer 0 on ``bilstm_fwd_mma`` and ``bilstm_bwd_mma``,
-   the stacked layer on ``bilstm_bwd_lite_mma_resident``, never
-   ``bilstm_fwd.cu`` or ``bilstm_bwd.cu``); the
+   ``bilstm_fwd_mma`` (both variants, its <72, 72> instance), beside their
+   bounds and cuDNN; the tensor-core sweep on both layers of the bf16 model
+   at embedding 16 (its <16, 32> instance on the stacked layer, E = 16 +
+   16, K = 48 run as 64, ``bilstm_bwd.cu``'s main path before it, and its
+   <16, 16> one on layer 0), each held against the twin with the run-time
+   build and ``bilstm_bwd.cu`` by name, then timed in turns with both,
+   beside its bounds and cuDNN, and the sweep's instances' registers and
+   spills; the tensor-core forward's <56, 56> and <56, 112> instances on
+   both layers of the bf16 model at embedding 56, beside their bounds and
+   cuDNN; every instance of ``K8_FWD_SHAPES`` (``k8_fwd``: both variants
+   against the twin at 27 rows in 3 groups, T = 1 and 5, then the train
+   variant at the train shape; registers and spills) and the f32 wgrad's
+   64-row tile at each of ``NARROW_WGRAD_SHAPES`` (``narrow_wgrad``:
+   against the twin at T = 300 and at 27 rows, then at the train shape,
+   beside its bounds at 495/3 and 67 and cuBLAS f32; each tile's
+   registers, spills and blocks an SM); the bf16 two-layer model at
+   embedding 72 at the train shape (2 steps and an eval step, timed: layer
+   0 on ``bilstm_fwd_mma`` and ``bilstm_bwd_mma``, the stacked layer on
+   ``bilstm_bwd_lite_mma_resident``, never ``bilstm_bwd.cu``); the
    wide forward (both variants: in bf16 the one-block
    ``bilstm_fwd_wide_mma_resident``, in f32 the one-block
    ``bilstm_fwd_wide_f32_resident`` in three tf32 passes, also at 5 weight
@@ -155,10 +148,10 @@ exits non-zero with no result):
    T = 64), in f32 and bf16, of two-layer models at embedding 48, 50, 100,
    112, (bf16) 272, (bf16) 72, whose layer 0 is the main path of the
    tensor-core forward's and sweep's <72, 72> instances, (bf16) 16, whose
-   stacked layer is ``bilstm_bwd.cu``'s, (f32) 16, 48 and 80, whose
-   weight gradients are the f32 wgrad's 64-row tile's (``bilstm_wgrad.cu``
-   never), (bf16) 56, whose layers are the tensor-core forward's <56, 56>
-   and <56, 112> instances (``bilstm_fwd.cu`` never), and 160, whose layers
+   layers are the tensor-core sweep's <16, 16> and <16, 32> instances
+   (``bilstm_bwd.cu`` never), (f32) 16, 48 and 80, whose weight gradients
+   are the f32 wgrad's 64-row tile's, (bf16) 56, whose layers are the
+   tensor-core forward's <56, 56> and <56, 112> instances, and 160, whose layers
    run the f32 tensor-core
    forward and lite sweep in f32, the bf16 tensor-core forward, lite
    sweep and split wgrad in bf16, and of the recurrence backend at
@@ -184,9 +177,8 @@ exits non-zero with no result):
    f32 gates and forward at 128, 256 and 288 at every row tile; wgrad
    in both dtypes); then each timed with CUDA events at full lengths beside
    its plain version and a PyTorch yardstick in the same dtype (cuBLAS
-   ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; wgrad
-   new, old, old, new in both dtypes, and in bf16 the forward and the
-   sweep at each of their row tiles;
+   ``addmm``, in bf16 with ``out_dtype=float32``; cuDNN), TF32 off; in bf16
+   the forward and the sweep at each of their row tiles;
    and the bf16 wide route's split weight gradient (``dW_ih`` on cuBLAS,
    ``dW_hh`` on ``bilstm_wgrad_mma`` with no input part) against its twin
    at the train shape on the wide layers at 96 (the stacked layers at
@@ -216,10 +208,16 @@ exits non-zero with no result):
    and 32 the sweep and the forward are tensor-core kernels
    (``lstm_recurrence_{bwd,fwd}_mma`` in bf16,
    ``lstm_recurrence_{bwd,fwd}_f32`` in f32, three tf32 passes; each
-   forward the same bits twice), and in bf16 the weight gradient
-   (``lstm_recurrence_wgrad_mma``) is too; the CUDA-core wgrad, asked for
-   by name, is held and timed beside it (new, old, old, new); ragged cases (27 rows in 3 groups, T = 1, 2 and 5, the
-   forwards at D = 1-3); the op at H = 128, 5 groups, the shapes of its
+   forward the same bits twice), and so is the weight gradient
+   (``lstm_recurrence_wgrad_mma`` in bf16, ``lstm_recurrence_wgrad_f32``
+   in f32, three tf32 passes); the CUDA-core wgrad, asked for by name, is
+   held and timed beside them (new, old, old, new); ragged cases (27 rows
+   in 3 groups, T = 1, 2 and 5, the forwards at D = 1-3, both wgrads);
+   ``wgrad_f32``: the f32 wgrad's two tiles at H = 64, 128 and 288 at the
+   train shape, each against its twin at T = 300 and 27 rows, then in
+   turns with the CUDA-core wgrad by name, beside its bounds (bytes, and
+   operations at 495/3 and at 67) and cuBLAS f32, with registers, spills,
+   splits and blocks an SM; the op at H = 128, 5 groups, the shapes of its
    main paths (``op_h128``: the tensor-core sweep and forward,
    ``lstm_recurrence_{bwd,fwd}_mid_f32`` in f32, three tf32 passes, and
    ``lstm_recurrence_{bwd,fwd}_mid_mma`` in bf16, both masks, the same
@@ -258,39 +256,44 @@ exits non-zero with no result):
    > 0, the other forwards and sweeps, the CUDA-core wgrad and the layer
    kernels 0; then 2 f32 steps (and a profiled one), whose forward, sweep
    and wgrad must be ``lstm_recurrence_fwd_f32``, ``lstm_recurrence_bwd_f32``
-   and the CUDA-core wgrad alone, and 2 steps of a one-layer model at
-   embedding 128, in f32 (its forward and sweep
-   ``lstm_recurrence_{fwd,bwd}_mid_f32``) and in bf16 (its forward and sweep
-   ``lstm_recurrence_{fwd,bwd}_mid_mma``), each profiled; a profiled
+   and ``lstm_recurrence_wgrad_f32`` alone, and 2 steps of a one-layer model at
+   embedding 128, in f32 (its forward, sweep and wgrad
+   ``lstm_recurrence_{fwd,bwd}_mid_f32`` and ``lstm_recurrence_wgrad_f32``)
+   and in bf16 (its forward and sweep ``lstm_recurrence_{fwd,bwd}_mid_mma``),
+   each profiled; the f32 manuscript step and the f32 step at embedding 128
+   in turns with the wgrad pinned to ``lstm_recurrence_wgrad.cu``
+   (``wgrad_pinned_turns``); a profiled
    step, peak memory, and the card's gradients against the CPU's on the
    same backend, in f32 and in bf16; then, on the default backend (which
    takes the op past 288 units a layer), 2 f32 steps and an eval step of a
    one-layer model at embedding 320, timed, and the card's gradients of
-   that model against the CPU's (in f32 the tensor-core forward and sweep
-   past 288, three tf32 passes; in bf16 the tensor-core kernels past 288;
-   no layer kernel);
+   that model against the CPU's (in f32 the tensor-core forward, sweep and
+   wgrad past 288, three tf32 passes; in bf16 the tensor-core kernels past
+   288; no layer kernel);
 10. infer — ``python -m intrepppid_tpu_torch infer from_csv`` on a
     synthetic proteome (1200 sequences of 200-3000 residues, 4000 pairs,
     ``tests/fixtures/golden_spm.model``, manuscript width, ``trunc_len``
     1500, batch 64, seeded weights): 4000 rows in input order, the first
     batch's 64 probabilities against the same command on the CPU, the
-    f32 tensor-core eval forward's launch count (``bilstm_fwd.cu``'s must
-    stay 0); file-to-file seconds and pairs/s, and where the time goes;
-11. the ``kernels`` line (thirty-eight kernels, each with launches > 0 on
+    f32 tensor-core eval forward's launch count (the bf16 one's must stay
+    0); file-to-file seconds and pairs/s, and where the time goes;
+11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
     a main path and every key of the contract; the tensor-core forward and
     lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
     H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
     the bf16 forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
     tensor-core forward at H = 64 as an entry of its own, and its f32 one
-    from the f32 recurrence-backend steps;
-    ``bilstm_bwd.cu`` from its main path, the stacked layer at embedding 16;
-    the bf16 forward's instances at embedding 56 as ``h56_*`` / ``h56s_*``
-    and the others that took shapes from ``bilstm_fwd.cu`` as ``k8_*``
-    fields of its entries, ``bilstm_fwd.cu`` by name beside them
-    (``cuda_core_ms``; it runs on no path); the f32 wgrad's 64-row tile at
-    embedding 80 as ``h80_*`` (its tiles, the step in turns) and at the other
-    f32 shapes as ``narrow_*`` fields of its entry, ``bilstm_wgrad.cu`` by
-    name beside them (on no path either); the one-block f32 wide forward's
+    from the f32 recurrence-backend steps, and its f32 wgrad
+    ``lstm_recurrence_wgrad_f32`` from them (its tiles at 64, 128 and 288,
+    the steps in turns with the wgrad pinned to ``lstm_recurrence_wgrad.cu``,
+    which runs on no path, by name beside it: ``cuda_core_ms``); the bf16
+    sweep at embedding 16 as ``h16_*`` / ``h16s_*`` fields of
+    ``bilstm_bwd_mma``'s entry (``bilstm_bwd.cu``, on no path, by name
+    beside them); the bf16 forward's instances at embedding 56 as ``h56_*``
+    / ``h56s_*`` and the others that took shapes from the deleted
+    ``bilstm_fwd.cu`` as ``k8_*`` fields of its entries; the f32 wgrad's
+    64-row tile at embedding 80 as ``h80_*`` (its tiles) and at the other
+    f32 shapes as ``narrow_*`` fields of its entry; the one-block f32 wide forward's
     main path f32 at 96; the op's f32 sweep and forward at 96-288 from the
     f32 one-layer model at embedding 128, and its bf16 sweep and forward
     from the bf16 one; the
@@ -342,13 +345,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 AAS = "ACDEFGHIKLMNPQRSTVWY"
-# the bf16 resident shapes (H, E) the tensor-core forward took from
-# bilstm_fwd.cu: both layers of the models of 1-56 units (K = E + H ends in
+# the bf16 resident shapes (H, E) the tensor-core forward took from the
+# deleted bilstm_fwd.cu: both layers of the models of 1-56 units (K = E + H ends in
 # a k8 step at five of them: 24 twice, 72, 120, 168)
 K8_FWD_SHAPES = ((8, 8), (8, 16), (16, 8), (24, 24), (24, 48), (40, 40), (40, 80), (48, 80),
                  (48, 112), (56, 56), (56, 112))
 # the f32 layers (Hp, E parts) that took the 3xTF32 wgrad's 64-row tile
-# from bilstm_wgrad.cu, and the tiles timed against it at E = H = 80
+# from the deleted bilstm_wgrad.cu, and the tiles timed at E = H = 80
 NARROW_WGRAD_SHAPES = ((16, (8,)), (16, (8, 8)), (16, (16,)), (16, (16, 16)), (48, (40,)),
                        (48, (40, 40)), (48, (48,)), (48, (48, 48)), (80, (72,)), (80, (80,)))
 WGRAD_TILES_80 = ((64, 160), (128, 160), (64, 64), (128, 128))
@@ -392,7 +395,6 @@ def phase_build() -> dict:
         fwd_f32_plan,
         fwd_mma_plan,
         fwd_wide_f32_rows,
-        launch_plan,
         lite_f32_resident_plan,
         lite_mma_resident_plan,
         recurrence_f32_smem,
@@ -401,6 +403,7 @@ def phase_build() -> dict:
         recurrence_mid_f32_smem,
         recurrence_mid_mma_smem,
         recurrence_mma_smem,
+        recurrence_wgrad_f32_smem,
         recurrence_wide_f32_smem,
         recurrence_wide_mma_smem,
         wgrad_f32_smem,
@@ -419,8 +422,7 @@ def phase_build() -> dict:
     }
     # the kernel's shared memory is dynamic, so ptxas does not report it
     smem = {
-        f"{kernel} {str(dtype).replace('torch.', '')} E={E}": plan([E], H_SERVE, dtype)[2]
-        for kernel, plan in (("fwd", launch_plan), ("bwd", bwd_launch_plan))
+        f"bwd {str(dtype).replace('torch.', '')} E={E}": bwd_launch_plan([E], H_SERVE, dtype)[2]
         for dtype in (torch.float32, torch.bfloat16)
         for E in (E_SERVE, 2 * H_SERVE)
     }
@@ -435,6 +437,10 @@ def phase_build() -> dict:
             smem[f"fwd_f32 float32 E={sum(E_parts)} rows={rows}"] = fwd_f32_plan(
                 E_parts, H_SERVE, torch.float32, rows)[1]
     smem["bwd_f32_onestage float32 E=H=80"] = bwd_f32_onestage_plan([80], 80, torch.float32)[1]
+    # the bf16 tensor-core sweep at K % 32 == 16 (K run to the next multiple of 32)
+    for E_parts, H in (([8], 16), ([16], 16), ([16, 16], 16), ([8, 8], 32), ([24], 48)):
+        smem[f"bwd_mma bfloat16 H={H} E={sum(E_parts)}"] = bwd_mma_plan(
+            E_parts, H, torch.bfloat16)[1]
     smem["fwd_f32 float32 E=H=80 rows=8"] = fwd_f32_plan([80], 80, torch.float32, 8)[1]
     smem["bwd_lite_f32_resident float32 H=96"] = lite_f32_resident_plan(96, torch.float32)[1]
     smem["bwd_lite_mma_resident bfloat16 H=96"] = lite_mma_resident_plan(96, torch.bfloat16)[1]
@@ -451,6 +457,8 @@ def phase_build() -> dict:
     for tile in WGRAD_F32_TILES:
         smem[f"wgrad_f32 {tile[0]}x{tile[1]}"] = wgrad_f32_smem(tile)
     smem["recurrence_wgrad_mma"] = REC_WGRAD_MMA_SMEM
+    for tile_n in (128, 64):
+        smem[f"recurrence_wgrad_f32 64x{tile_n}"] = recurrence_wgrad_f32_smem(tile_n)
     smem["gates_mma"] = GATES_MMA_SMEM
     for H in LITE_MMA_WIDTHS:
         for rows in LITE_MMA_ROWS if H % 128 == 0 else LITE_MMA_UNEVEN_ROWS:
@@ -584,42 +592,33 @@ def phase_kernel(dev) -> dict:
         args = layer_inputs(B, T, E_parts, H, dtype, dev, SEED + i)
         got = bilstm_layer_fwd(*args, dtype)
         want = bilstm_layer_fwd_plain(*args, dtype)
-        # and the CUDA-core kernel by name, on the same operands
-        old = bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd")
         torch.cuda.synchronize()
         names = ("hs_f", "hs_b", "hn", "cn")
         errs = {name: float((a.float() - b.float()).abs().max())
                 for name, a, b in zip(names, got, want)}
-        errs.update({f"cuda_core_{name}": float((a.float() - b.float()).abs().max())
-                     for name, a, b in zip(names, old, want)})
         check = {"B": B, "T": T, "H": H, "E_parts": E_parts,
                  "dtype": str(dtype).replace("torch.", ""),
                  "kernel": fwd_kernel(E_parts, H, dtype),
                  "max_abs_err": errs, "tol": TOL[dtype]}
         checks.append(check)
-        del got, want, old, args
+        del got, want, args
         if not max(errs.values()) <= TOL[dtype]:
             emit({"phase": "kernel", "failed": check})
             raise AssertionError(f"bilstm kernel disagrees with its plain version: {check}")
 
     # the dispatched kernel (in f32 the 3xTF32 forward, in bf16 the
-    # tensor-core one) and the CUDA-core kernel by name on the same
-    # operands, in turns: new, old, old, new
+    # tensor-core one), timed twice
     timings = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         size = torch.empty((), dtype=dtype).element_size()
         t = {"kernel": fwd_kernel([E_SERVE], H_SERVE, dtype), "kernel_ms": 0.0,
-             "kernel_ms_again": 0.0, "cuda_core_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
-             "bytes": 0.0}
+             "kernel_ms_again": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0}
         for E_parts in ([E_SERVE], [H_SERVE, H_SERVE]):
             args = layer_inputs(B_SERVE, T_SERVE, E_parts, H_SERVE, dtype, dev,
                                 SEED, full_lengths=True)
-            a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
-                               lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
-            t["kernel_ms"] += a
-            t["kernel_ms_again"] += b
-            t["cuda_core_ms"] += c
+            t["kernel_ms"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
+            t["kernel_ms_again"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
             t["plain_ms"] += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
             f, nb = layer_work(B_SERVE, T_SERVE, sum(E_parts), H_SERVE, size)
             t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + nb
@@ -629,20 +628,15 @@ def phase_kernel(dev) -> dict:
         timings[name] = t
 
     # the kernel at the H = 32 width it also serves (the shapes of TPU
-    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128),
-    # beside the CUDA-core one by name, in turns
+    # kernel row 3, lstm_pallas_layer.py:376 _fwd_pallas, at 2H != 128)
     for dtype in (torch.float32, torch.bfloat16):
         size = torch.empty((), dtype=dtype).element_size()
         t = {"kernel": fwd_kernel([32], 32, dtype), "kernel_ms": 0.0, "kernel_ms_again": 0.0,
-             "cuda_core_ms": 0.0, "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "B": 96,
-             "T": 300}
+             "plain_ms": 0.0, "flops": 0.0, "bytes": 0.0, "B": 96, "T": 300}
         for E_parts in ([32], [32, 32]):
             args = layer_inputs(96, 300, E_parts, 32, dtype, dev, SEED, full_lengths=True)
-            a, b, c = in_turns(lambda: bilstm_layer_fwd(*args, dtype),
-                               lambda: bilstm_layer_fwd(*args, dtype, kernel="bilstm_fwd"), 5)
-            t["kernel_ms"] += a
-            t["kernel_ms_again"] += b
-            t["cuda_core_ms"] += c
+            t["kernel_ms"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
+            t["kernel_ms_again"] += time_ms(lambda: bilstm_layer_fwd(*args, dtype), 5)
             t["plain_ms"] += time_ms(lambda: bilstm_layer_fwd_plain(*args, dtype), 2)
             f, nb = layer_work(96, 300, sum(E_parts), 32, size)
             t["flops"], t["bytes"] = t["flops"] + f, t["bytes"] + nb
@@ -755,7 +749,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
     from intrepppid_tpu_torch.cli.serve import Serve
     from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
     from intrepppid_tpu_torch.models.factory import intrepppid_network
-    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd, bilstm_layer_fwd_f32
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd_f32, bilstm_layer_fwd_mma
     from intrepppid_tpu_torch.serve import ScoringEngine
     from intrepppid_tpu_torch.utils.convert import (
         load_reference_checkpoint,
@@ -791,8 +785,8 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
         base = f"http://127.0.0.1:{server.server_address[1]}"
         try:
             # the main path: every request below goes through the f32
-            # tensor-core forward, and none through bilstm_fwd.cu
-            bilstm_layer_fwd.launches = bilstm_layer_fwd_f32.launches = 0
+            # tensor-core forward, and none through the bf16 one
+            bilstm_layer_fwd_mma.launches = bilstm_layer_fwd_f32.launches = 0
             health = http(base, "/healthz")
             p_small = http(base, "/score", {"pairs": small})["probabilities"]
             big_s, p_big = [], None
@@ -806,7 +800,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                     concurrent,
                 ))
             stats = http(base, "/statsz")
-            launches, cuda_core_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd.launches
+            launches, bf16_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd_mma.launches
             # where a bulk request's time goes, without HTTP and JSON: the
             # engine call alone (token cache warm), then under the profiler
             engine_s = []
@@ -825,10 +819,10 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                 or not np.all(np.isfinite(probs)) \
                 or not np.all((probs > 0) & (probs < 1)):
             raise AssertionError("served probabilities are not finite values in (0, 1)")
-        if launches <= 0 or cuda_core_launches != 0:
+        if launches <= 0 or bf16_launches != 0:
             raise AssertionError(
                 f"the requests launched the f32 tensor-core forward {launches} times and "
-                f"bilstm_fwd.cu {cuda_core_launches} times (want > 0 and 0)")
+                f"the bf16 one {bf16_launches} times (want > 0 and 0)")
         if health.get("status") != "ok" or health["model"]["device"] != str(dev):
             raise AssertionError(f"unexpected /healthz: {health}")
 
@@ -853,7 +847,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
         "errors": stats["errors"], "bulk_request_s": big_s,
         "pairs_per_s": bulk / float(np.median(big_s)),
         "p50_latency_ms": stats["latency_ms"]["p50"],
-        "launches": launches, "cuda_core_launches": cuda_core_launches,
+        "launches": launches, "bf16_launches": bf16_launches,
         "max_abs_err_vs_cpu": err, "cpu_reference_s": cpu_s,
         "engine_bulk_s": engine_s, "engine_bulk_profile": breakdown,
     }
@@ -931,7 +925,8 @@ TF32_X3 = ("bilstm_bwd_f32", "bilstm_fwd_f32", "lstm_recurrence_bwd_f32", "bilst
            "bilstm_bwd_f32_onestage", "lstm_recurrence_bwd_wide_f32",
            "lstm_recurrence_fwd_wide_f32", "bilstm_bwd_lite_f32", "bilstm_gates_f32",
            "bilstm_fwd_wide_f32", "bilstm_bwd_lite_f32_resident", "bilstm_fwd_wide_f32_resident",
-           "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32", "lstm_recurrence_fwd_mid_f32")
+           "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32", "lstm_recurrence_fwd_mid_f32",
+           "lstm_recurrence_wgrad_f32")
 
 
 def kernel_peak(dtype, name: str = "") -> float:
@@ -1212,18 +1207,16 @@ def embedding_80_kernels(dev) -> dict:
     ``bilstm_fwd_mma.cu`` and sweep ``bilstm_bwd_mma.cu`` (their <80, 80>
     instances) and ``bilstm_wgrad_mma.cu`` (its last gate tile masked: 4H =
     320). Each is held against its plain twin with the main path's lengths
-    (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by name too, in both
-    dtypes ``bilstm_wgrad.cu``, in f32 the wgrad at each tile of
-    ``WGRAD_TILES_80`` too; the bf16 forward the same bits twice), then
+    (groups at 0, 1 and T; in f32 ``bilstm_bwd.cu`` by name too, and the
+    wgrad at each tile of ``WGRAD_TILES_80``; the bf16 forward the same bits
+    twice), then
     timed at full lengths beside the twin (timed once, in the check), its
     bound (the f32 tensor-core kernels at 495/3 TFLOP/s, the others at
     their dtype's rate; the f32 wgrad's at 67 too), cuDNN's one-layer
     training forward, inference forward and backward for the input in the
     same dtype, and cuBLAS's products for wgrad, TF32 off; the f32 sweep in
-    turns with ``bilstm_bwd.cu`` by name and the wgrad with
-    ``bilstm_wgrad.cu`` by name (new, old, old, new; ``bilstm_fwd.cu`` is no
-    longer asked for by name at E = H = 80); in f32 each tile of
-    ``WGRAD_TILES_80`` pinned, in turns with ``bilstm_wgrad.cu`` by name,
+    turns with ``bilstm_bwd.cu`` by name (new, old, old, new); in f32 each
+    tile of ``WGRAD_TILES_80`` pinned, in turns with the dispatch's tile,
     with its splits and the blocks an SM the card holds. One dict per dtype
     and kernel: "fwd", "fwd_eval", "bwd", "wgrad"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -1233,8 +1226,7 @@ def embedding_80_kernels(dev) -> dict:
     picked = {torch.float32: ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage", "bilstm_wgrad_f32"),
               torch.bfloat16: ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")}
     # the CUDA-core kernel asked for by name on the same operands, by (kernel, dtype)
-    by_name = {("bwd", torch.float32): "bilstm_bwd", ("wgrad", torch.bfloat16): "bilstm_wgrad",
-               ("wgrad", torch.float32): "bilstm_wgrad"}
+    by_name = {("bwd", torch.float32): "bilstm_bwd"}
     wgrad_lib = L._kernels("bilstm_wgrad_f32")
     names = ("hs_f", "hs_b", "hn", "cn", "cs_f", "cs_b")
     flat = lambda r: list(r[0]) + list(r[1]) + list(r[2:])  # noqa: E731
@@ -1267,9 +1259,7 @@ def embedding_80_kernels(dev) -> dict:
             dgc = calls["bwd"]()[2]
             calls["wgrad"] = lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
             # the CUDA-core kernel asked for by name on the same operands
-            old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd"),
-                   "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
-                                                   kernel="bilstm_wgrad")}
+            old = {"bwd": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd")}
             if full:
                 for k, call in calls.items():
                     if (k, cd) in by_name:
@@ -1285,16 +1275,16 @@ def embedding_80_kernels(dev) -> dict:
                 if f32:
                     out["wgrad"]["wgrad_bound_67_ms"], _ = bound(
                         [(*work["wgrad"], PEAK_F32_FLOPS)])
-                    # each tile pinned, new, old, old, new with bilstm_wgrad.cu by name
+                    # each tile pinned, in turns with the dispatch's
                     out["wgrad"]["tiles"] = {}
                     for tile in WGRAD_TILES_80:
                         a, b, c = in_turns(
                             lambda: L.bilstm_wgrad_f32(dgc, parts, hs_f, hs_b, G, tile=tile),
-                            old["wgrad"], 3)
+                            calls["wgrad"], 3)
                         m_t, n_t, splits = L.wgrad_f32_plan(T_TRAIN, B_TRAIN, G, E_parts, H,
                                                             L._sm_count(dev), tile)
                         out["wgrad"]["tiles"][f"{tile[0]}x{tile[1]}"] = {
-                            "ms": a, "ms_again": b, "cuda_core_ms": c, "splits": splits,
+                            "ms": a, "ms_again": b, "dispatch_ms": c, "splits": splits,
                             "blocks": m_t * n_t * splits * 2 * G,
                             "blocks_an_sm": wgrad_lib.bilstm_wgrad_f32_occupancy(*tile),
                             "stages": L.wgrad_f32_stages(tile),
@@ -1329,8 +1319,6 @@ def embedding_80_kernels(dev) -> dict:
                     del ev, tr
                 out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                     flat(calls["bwd"]()), flat(ref)))
-                res["wgrad"].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
-                                     zip(("dW_ih", "dW_hh"), old["wgrad"](), ref_w)})
                 out["wgrad"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(
                     calls["wgrad"](), ref_w))
                 if f32:
@@ -1401,14 +1389,6 @@ def phase_train_kernel(dev) -> dict:
             res = {n: err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)}
             got = L.bilstm_layer_fwd(*fwd_args)
             res.update({f"eval_{n}": err(a, b, TOL[dtype]) for n, a, b in zip(names, got, want)})
-            # the CUDA-core forward by name, both variants
-            old = L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")
-            res.update({f"cuda_core_{n}": err(a, b, TOL[dtype])
-                        for n, a, b in zip(names, old, want)})
-            old = L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")
-            res.update({f"cuda_core_eval_{n}": err(a, b, TOL[dtype])
-                        for n, a, b in zip(names, old, want)})
-            del old
             _, ms = timed_once(lambda: L.bilstm_layer_fwd_plain(*fwd_args))
             plain_ms[dtype]["fwd_eval"] += ms
             del got
@@ -1454,11 +1434,6 @@ def phase_train_kernel(dev) -> dict:
             if not bf16:
                 scaled["wgrad_scaled_err"] = max(scaled_err(dw_ih, ref_w[0]),
                                                  scaled_err(dw_hh, ref_w[1]))
-            # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in
-            # f32); the CUDA-core one by name
-            dw_ih, dw_hh = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-            res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (
-                err(dw_ih, ref_w[0], TOL[dtype]), err(dw_hh, ref_w[1], TOL[dtype]))
             torch.cuda.synchronize()
             check = {"layer": i, "B": B_TRAIN, "T": T_TRAIN, "H": H, "G": G,
                      "E_parts": E_parts, "dtype": str(dtype).replace("torch.", ""),
@@ -1481,8 +1456,9 @@ def phase_train_kernel(dev) -> dict:
         t = {f"{k}_ms": 0.0 for k in keys}
         t["wgrad_library_ms"] = 0.0
         t.update({f"{k}_plain_ms": v for k, v in plain_ms[dtype].items() if v})
-        # every kernel in turns with the CUDA-core one, in both dtypes
-        t.update({f"{k}_{what}": 0.0 for k in keys for what in ("ms_again", "cuda_core_ms")})
+        # each kernel twice; the sweep in turns with the CUDA-core one
+        t.update({f"{k}_ms_again": 0.0 for k in keys})
+        t["bwd_cuda_core_ms"] = 0.0
         work = {k: [0.0, 0.0] for k in keys}
         for i, (E_parts, G) in enumerate(layers):
             parts, lengths, w_ih, w_hh, bias, dyf, dyb, dhn, dcn = train_layer_inputs(
@@ -1493,22 +1469,21 @@ def phase_train_kernel(dev) -> dict:
                         dhn, dcn, dtype)
             dgc = L.bilstm_bwd(*bwd_args)[2]
             calls = {
-                "fwd": (lambda: L.bilstm_layer_fwd_train(*fwd_args),
-                        lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd")),
-                "fwd_eval": (lambda: L.bilstm_layer_fwd(*fwd_args),
-                             lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")),
-                "bwd": (lambda: L.bilstm_bwd(*bwd_args),
-                        lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd")),
-                "wgrad": (lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                          lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G,
-                                                 kernel="bilstm_wgrad")),
+                "fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args),
+                "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args),
+                "bwd": lambda: L.bilstm_bwd(*bwd_args),
+                "wgrad": lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
             }
-            for k, (new, old) in calls.items():
-                # new, old, old, new: both kernels in one run, on one card
-                a, b, c = in_turns(new, old, 5 if k != "bwd" else 3)
+            for k, new in calls.items():
+                if k == "bwd":
+                    # new, old, old, new: both kernels in one run, on one card
+                    a, b, c = in_turns(new, lambda: L.bilstm_bwd(*bwd_args, kernel="bilstm_bwd"),
+                                       3)
+                    t["bwd_cuda_core_ms"] += c
+                else:
+                    a, b = time_ms(new, 5), time_ms(new, 5)
                 t[f"{k}_ms"] += a
                 t[f"{k}_ms_again"] += b
-                t[f"{k}_cuda_core_ms"] += c
             t["wgrad_library_ms"] += time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 5)
             for k, (f, b) in train_layer_work(sum(E_parts), H, size, len(dyf)).items():
                 work[k][0] += f
@@ -1575,6 +1550,7 @@ def train_counters():
             "lstm_recurrence_bwd_f32": L.lstm_recurrence_bwd_f32,
             "lstm_recurrence_wgrad": L.lstm_recurrence_wgrad,
             "lstm_recurrence_wgrad_mma": L.lstm_recurrence_wgrad_mma,
+            "lstm_recurrence_wgrad_f32": L.lstm_recurrence_wgrad_f32,
             "lstm_recurrence_fwd_wide_mma": L.lstm_recurrence_fwd_wide_mma,
             "lstm_recurrence_bwd_wide_mma": L.lstm_recurrence_bwd_wide_mma,
             "lstm_recurrence_bwd_wide_f32": L.lstm_recurrence_bwd_wide_f32,
@@ -1625,11 +1601,9 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     breakdown = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
         groups={"fwd_mma": "bilstm_fwd_mma_kernel", "fwd_f32": "bilstm_fwd_f32_kernel",
-                "fwd_cuda_core": "bilstm_layer_fwd_kernel",
                 "sweep_mma": "bilstm_bwd_mma_kernel", "sweep_f32": "bilstm_bwd_f32_",
                 "sweep_cuda_core": "bilstm_bwd_kernel",
-                "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_f32": "bilstm_wgrad_f32_kernel",
-                "wgrad_cuda_core": "bilstm_wgrad_kernel"})
+                "wgrad_mma": "bilstm_wgrad_mma_kernel", "wgrad_f32": "bilstm_wgrad_f32_kernel"})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite train loss: {losses}, eval {eval_loss}")
     new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
@@ -1652,9 +1626,8 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     # the default two-layer model at embedding 80, an eval step after its
     # train steps: layer 0 (E = H = 80) is resident, its forward (both
     # variants) the 3xTF32 bilstm_fwd_f32.cu in f32 and the tensor-core
-    # bilstm_fwd_mma.cu (its <80, 80> instance) in bf16, never bilstm_fwd.cu,
-    # its wgrad bilstm_wgrad_f32.cu's 64-row tile in f32 (bilstm_wgrad.cu
-    # never) and bilstm_wgrad_mma.cu (the masked
+    # bilstm_fwd_mma.cu (its <80, 80> instance) in bf16, its wgrad
+    # bilstm_wgrad_f32.cu's 64-row tile in f32 and bilstm_wgrad_mma.cu (the masked
     # gate tile) in bf16, its sweep the one-stage 3xTF32 kernel in f32 and
     # the tensor-core bilstm_bwd_mma.cu in bf16, never bilstm_bwd.cu; the
     # stacked layer (E = 2 x 80) runs padded to H = 96 on the wide route:
@@ -1690,13 +1663,6 @@ def phase_train(dev, warmup=2, steps=12) -> dict:
     e80 = {str(dtype).replace("torch.", ""): f32_steps(
         dev, batches, e80_expect[dtype], e80_never[dtype], eval_step=True, dtype=dtype,
         embedding_size=80) for dtype in (torch.float32, torch.bfloat16)}
-    # the f32 step at embedding 80 in turns with layer 0's wgrad pinned to
-    # bilstm_wgrad.cu (the dispatch before the 64-row tile)
-    e80["float32"]["turns"] = pinned_step_turns(
-        dev, batches, "wgrad_kernel", lambda keep: lambda E_parts, H, dtype: (
-            "bilstm_wgrad" if dtype == torch.float32 and H % 32 else keep(E_parts, H, dtype)),
-        {"wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel")}, dtype=torch.float32,
-        embedding_size=80)
     grad_check = train_grad_check(dev)
     grad_check_80 = {str(dtype).replace("torch.", ""): train_grad_check(
         dev, dtype=dtype, eval_step=True, expect=e80_expect[dtype], never=e80_never[dtype],
@@ -1749,8 +1715,7 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
         raise AssertionError(f"the {dtype} train steps never launched {missing} or ran {wrong}")
     profile = profile_device(
         lambda: trainer.train_step(batches[0])["loss"].item(), top=10,
-        groups={"fwd": ("bilstm_fwd_f32_kernel", "bilstm_layer_fwd_kernel",
-                        "lstm_recurrence_fwd_kernel", "lstm_recurrence_fwd_mma_kernel",
+        groups={"fwd": ("bilstm_fwd_f32_kernel", "lstm_recurrence_fwd_kernel", "lstm_recurrence_fwd_mma_kernel",
                         "lstm_recurrence_fwd_mid_mma_kernel", "lstm_recurrence_fwd_f32_kernel",
                         "lstm_recurrence_fwd_mid_f32_kernel", "bilstm_fwd_mma_kernel",
                         "bilstm_fwd_wide_mma_kernel",
@@ -1769,9 +1734,9 @@ def f32_steps(dev, batches, expect, never, steps=2, eval_step=False, dtype=torch
                           "bilstm_bwd_lite_mma_resident_kernel",
                           "lstm_recurrence_bwd_mid_f32_kernel",
                           "lstm_recurrence_bwd_mid_mma_kernel"),
-                "wgrad": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel",
-                          "bilstm_wgrad_mma_kernel", "lstm_recurrence_wgrad_kernel",
-                          "lstm_recurrence_wgrad_mma_kernel"),
+                "wgrad": ("bilstm_wgrad_f32_kernel", "bilstm_wgrad_mma_kernel",
+                          "lstm_recurrence_wgrad_kernel", "lstm_recurrence_wgrad_mma_kernel",
+                          "lstm_recurrence_wgrad_f32_kernel"),
                 "gates": "bilstm_gates",
                 "gemm": ("gemm", "nvjet", "xmma")})
     return {"dtype": str(dtype).replace("torch.", ""), "steps": steps, "eval_step": eval_step,
@@ -1850,8 +1815,7 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
 # ------------------------------------------------------------------ widths
 # the train-variant wrapper of each resident forward kernel
 RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
-                      "bilstm_fwd_f32": "bilstm_layer_fwd_train_f32",
-                      "bilstm_fwd": "bilstm_layer_fwd_train"}
+                      "bilstm_fwd_f32": "bilstm_layer_fwd_train_f32"}
 # the layers the width repairs open (E parts, H, weight groups), each run at
 # its padded shape: the stacked layer at embedding 80 (96, wide), layer 0
 # and the stacked layer at embedding 112 (128, wide), layer 0 at embedding
@@ -1865,40 +1829,38 @@ PADDED_LAYERS = ((("stacked", 80), [80, 80], 80, 1), (("layer 0", 112), [112], 1
                  (("layer 0", 272), [272], 272, G_TRAIN), (("stacked", 272), [272, 272], 272, 1))
 # the wide route's kernels at 128-288, by dtype (the tensor-core ones; in
 # f32 three tf32 passes a product; in bf16 dW_ih on cuBLAS beside
-# bilstm_wgrad_mma's dW_hh); the CUDA-core forward and the whole-kernel
-# wgrad no wide layer at these widths may launch
+# bilstm_wgrad_mma's dW_hh)
 WIDE_BF16 = ("bilstm_gates_mma", "bilstm_fwd_wide_train_mma", "bilstm_fwd_wide_mma",
              "bilstm_bwd_lite_mma", "bilstm_wgrad_mma", "bilstm_wgrad_ih")
 WIDE_F32 = ("bilstm_gates_f32", "bilstm_fwd_wide_train_f32", "bilstm_fwd_wide_f32",
             "bilstm_bwd_lite_f32", "bilstm_wgrad_f32")
-WIDE_CUDA_CORE = ("bilstm_wgrad",)
 # two-layer models at these embeddings, and the recurrence backend at 80:
 # the kernels each one's gradient step and eval step must launch (at 72 in
 # bf16 layer 0, E = H = 72, is the main path of the tensor-core forward's
 # and sweep's <72, 72> instances, the stacked layer (run at 96) that of the
-# one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu and
-# bilstm_fwd.cu must not launch, nor the dW_ih products (the stacked
-# layer's weight gradients are whole at 96);
-# at 16 in bf16 the stacked layer, E = 16 + 16, H = 16, is bilstm_bwd.cu's:
-# K = 48, which the tensor-core sweep does not take; at 16 and 48 in f32
+# one-block bf16 lite sweep and wide forward, and bilstm_bwd.cu must not
+# launch, nor the dW_ih products (the stacked layer's weight gradients are
+# whole at 96);
+# at 16 in bf16 both layers are the tensor-core sweep's (its <16, 16> and
+# <16, 32> instances; the stacked layer, E = 16 + 16, K = 48 run as 64, was
+# bilstm_bwd.cu's main path), never bilstm_bwd.cu; at 16 and 48 in f32
 # and at 80 in f32 (layer 0) the weight gradients are the 3xTF32 wgrad's
-# 64-row tile's, never bilstm_wgrad.cu's; at 56 in bf16 both layers, E =
+# 64-row tile's; at 56 in bf16 both layers, E =
 # 56 and 56 + 56, are the tensor-core forward's <56, 56> and <56, 112>
-# instances (the latter with a k8 tail), never bilstm_fwd.cu, whose main
-# path they were; at 48 in bf16 the stacked layer at parts of 56 is its
+# instances (the latter with a k8 tail); at 48 in bf16 the stacked layer at parts of 56 is its
 # <48, 112> one; at 160 both layers run on the wide route at
 # 160: in f32 the f32 tensor-core forward's and lite sweep's
 # (the dW_ih products must not launch), in bf16 the bf16 tensor-core
 # forward's and lite sweep's and the split wgrad's; on the recurrence
-# backend at 80 both layers run the op at 96: in f32 its forward and sweep
-# are the tensor-core lstm_recurrence_{fwd,bwd}_mid_f32.cu, in bf16
-# lstm_recurrence_{fwd,bwd}_mid_mma.cu) and, where given, must not
+# backend at 80 both layers run the op at 96: in f32 its forward, sweep and
+# wgrad are the tensor-core lstm_recurrence_{fwd,bwd}_mid_f32.cu and
+# lstm_recurrence_wgrad_f32.cu, in bf16 lstm_recurrence_{fwd,bwd}_mid_mma.cu)
+# and, where given, must not
 WIDTH_STEPS = (
     ("layer", 48, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
-                                  "bilstm_bwd_f32", "bilstm_wgrad_f32"), ("bilstm_wgrad",)),
+                                  "bilstm_bwd_f32", "bilstm_wgrad_f32")),
     ("layer", 48, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"),
-     ("bilstm_layer_fwd_train", "bilstm_layer_fwd")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma")),
     ("layer", 50, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
                                   "bilstm_bwd_f32", "bilstm_wgrad_f32")),
     ("layer", 50, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
@@ -1910,27 +1872,24 @@ WIDTH_STEPS = (
                                    "bilstm_bwd_mma", "bilstm_wgrad_mma",
                                    "bilstm_fwd_wide_train_mma_resident",
                                    "bilstm_fwd_wide_mma_resident", "bilstm_bwd_lite_mma_resident"),
-     ("bilstm_bwd", "bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_wgrad_ih")),
+     ("bilstm_bwd", "bilstm_wgrad_ih")),
     ("layer", 16, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_bwd_mma", "bilstm_bwd", "bilstm_wgrad_mma"),
-     ("bilstm_layer_fwd_train", "bilstm_layer_fwd")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"), ("bilstm_bwd",)),
     ("layer", 16, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
-                                  "bilstm_bwd_f32", "bilstm_wgrad_f32"), ("bilstm_wgrad",)),
+                                  "bilstm_bwd_f32", "bilstm_wgrad_f32")),
     ("layer", 56, torch.bfloat16, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma",
-                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"),
-     ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd")),
+                                   "bilstm_bwd_mma", "bilstm_wgrad_mma"), ("bilstm_bwd",)),
     ("layer", 80, torch.float32, ("bilstm_layer_fwd_train_f32", "bilstm_layer_fwd_f32",
-                                  "bilstm_bwd_f32_onestage", "bilstm_wgrad_f32"),
-     ("bilstm_wgrad", "bilstm_layer_fwd_train", "bilstm_layer_fwd")),
+                                  "bilstm_bwd_f32_onestage", "bilstm_wgrad_f32")),
     ("layer", 160, torch.float32, WIDE_F32, ("bilstm_wgrad_ih",)),
     ("layer", 160, torch.bfloat16, WIDE_BF16,
      ("bilstm_bwd_lite_f32", "bilstm_wgrad_f32", "bilstm_fwd_wide_mma_resident")),
     ("layer", 112, torch.float32, WIDE_F32),
     ("layer", 112, torch.bfloat16, WIDE_BF16),
     ("recurrence", 80, torch.float32, ("lstm_recurrence_fwd_mid_f32",
-                                       "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_wgrad"),
+                                       "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_wgrad_f32"),
      ("lstm_recurrence_fwd", "lstm_recurrence_bwd", "lstm_recurrence_fwd_f32",
-      "lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma")),
+      "lstm_recurrence_fwd_mid_mma", "lstm_recurrence_bwd_mid_mma", "lstm_recurrence_wgrad")),
     ("recurrence", 80, torch.bfloat16, ("lstm_recurrence_fwd_mid_mma",
                                         "lstm_recurrence_bwd_mid_mma",
                                         "lstm_recurrence_wgrad_mma"),
@@ -2437,7 +2396,7 @@ def lite_f32_96(dev) -> dict:
 
 
 def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=False,
-                          fwd_by_name=False) -> dict:
+                          turns=False) -> dict:
     """The bf16 resident layer at ``E_parts``, ``H`` (``G`` weight groups,
     ``ny`` dy streams a direction, 400 rows) on a main path of its own: its
     sweep, which the dispatch must name ``sweep_want``, and with
@@ -2448,10 +2407,11 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
     (``cuda_core_bound_ms``: a CUDA-core kernel's at 67 TFLOP/s, its f32
     FMAs), the twin (timed once) and cuDNN's one-layer bf16 training
     forward, inference forward and backward for the input at the layer's
-    widths, TF32 off; with ``fwd_by_name`` the forward in turns with
-    ``bilstm_fwd.cu`` by name (new, old, old, new: ``cuda_core_ms``, its
-    bound ``cuda_core_bound_ms``), which is held against the twin too. One
-    dict each: "bwd", and "fwd", "fwd_eval"."""
+    widths, TF32 off; with ``turns`` the sweep in turns with the run-time
+    ``<0, 0>`` build of ``bilstm_bwd_mma.cu`` (``generic=True``:
+    ``generic_ms``) and with ``bilstm_bwd.cu`` by name (``cuda_core_ms``,
+    its bound ``cuda_core_bound_ms``), new, old, old, new, both held
+    against the twin too. One dict each: "bwd", and "fwd", "fwd_eval"."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm import bidir_layer_sweep
 
@@ -2478,15 +2438,17 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
         hs_f, hs_b, _, _, cs_f, cs_b = calls["fwd"]()
         args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, cd)
         calls["bwd"] = lambda: L.bilstm_bwd(*args)
-        by_name = {"fwd": lambda: L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"),
-                   "fwd_eval": lambda: L.bilstm_layer_fwd(*fwd_args, kernel="bilstm_fwd")}
+        others = {"generic": lambda: L.bilstm_bwd_mma(*args, generic=True),
+                  "cuda_core": lambda: L.bilstm_bwd(*args, kernel="bilstm_bwd")}
         if full:
             for k in out:
-                if fwd_by_name and k in by_name:
-                    out[k]["ms"], out[k]["ms_again"], out[k]["cuda_core_ms"] = in_turns(
-                        calls[k], by_name[k], 3)
-                else:
-                    out[k]["ms"] = time_ms(calls[k], 3)
+                out[k]["ms"] = time_ms(calls[k], 3)
+            if turns:
+                o = out["bwd"]
+                o["ms"], o["ms_again"], o["generic_ms"] = in_turns(calls["bwd"],
+                                                                   others["generic"], 3)
+                a, b, o["cuda_core_ms"] = in_turns(calls["bwd"], others["cuda_core"], 2)
+                o["ms_in_cuda_core_turns"] = [a, b]
         else:
             ref, out["bwd"]["plain_ms"] = timed_once(lambda: bidir_layer_sweep(*args))
             gnames = sweep_names(*ref[:2])
@@ -2495,6 +2457,10 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
             res["bwd"]["twice"] = (0.0, all(torch.equal(a, b)
                                             for a, b in zip(flat(calls["bwd"]()), got)))
             out["bwd"]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got, flat(ref)))
+            if turns:
+                for key, call in others.items():
+                    res["bwd"].update({f"{key}_{n}": rel_err(a, b, TOL[cd])
+                                       for n, a, b in zip(gnames, flat(call()), flat(ref))})
             if forwards:
                 want, out["fwd"]["plain_ms"] = timed_once(
                     lambda: L.bilstm_layer_fwd_plain(*fwd_args, with_states=True))
@@ -2506,9 +2472,6 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
                     res[k]["twice"] = (0.0, all(torch.equal(a, b)
                                                 for a, b in zip(calls[k](), got_f)))
                     out[k]["scaled_err"] = max(scaled_err(a, b) for a, b in zip(got_f, want))
-                    if fwd_by_name:
-                        res[k].update({f"cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in
-                                       zip(names, by_name[k](), want)})
                     del got_f
                 del want
             torch.cuda.synchronize()
@@ -2519,12 +2482,12 @@ def resident_bf16_kernels(dev, E_parts, H, G, ny, seed, sweep_want, forwards=Fal
                     raise AssertionError(f"{out[k]['kernel']} at E={E_parts}, H={H} disagrees "
                                          f"with its twin: {out[k]}")
             del ref, got, res
-        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls
+        del parts, hs_f, hs_b, cs_f, cs_b, args, fwd_args, calls, others
     work = train_layer_work(E, H, 2, ny, G=G)
     for k in out:
         name = sweep_want if k == "bwd" else fwd_name
         out[k]["bound_ms"], out[k]["bound_by"] = bound([(*work[k], kernel_peak(cd, name))])
-        if name in ("bilstm_fwd", "bilstm_bwd") or (fwd_by_name and k in ("fwd", "fwd_eval")):
+        if name == "bilstm_bwd" or (turns and k == "bwd"):
             out[k]["cuda_core_bound_ms"], _ = bound([(*work[k], PEAK_F32_FLOPS)])
     lib = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)
     for k, key in (("fwd", "cudnn_fwd_ms"), ("fwd_eval", "cudnn_inference_ms"),
@@ -2540,12 +2503,10 @@ def k8_fwd_instances(dev) -> dict:
     E > H, as the models' stacked layers have), both variants: held against
     the plain twin at 27 rows in 3 weight groups of 9 (a short tile in each
     group), T = 1 and 5, lengths 0, 1, T and random, the second group's rows
-    ending at T // 3 at most (3e-2 x max(1, max|ref|); the same bits twice,
-    and ``bilstm_fwd.cu`` by name too); then the train variant at the train
-    shape (400 rows, T = 1500, full lengths; 5 groups where E <= H, 1 where
-    E > H) in turns with ``bilstm_fwd.cu`` by name (new, old, old, new),
-    beside its bound at the bf16 rate and ``bilstm_fwd.cu``'s at 67 TFLOP/s
-    (``cuda_core_bound_ms``, its f32 FMAs); each instance's registers and
+    ending at T // 3 at most (3e-2 x max(1, max|ref|); the same bits
+    twice); then the train variant at the train shape (400 rows, T = 1500,
+    full lengths; 5 groups where E <= H, 1 where E > H), timed twice,
+    beside its bound at the bf16 rate; each instance's registers and
     spill-store bytes from the build's ``-Xptxas -v``."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
 
@@ -2580,8 +2541,6 @@ def k8_fwd_instances(dev) -> dict:
             res = {f"T{T}_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(names, got, want)}
             res.update({f"T{T}_eval_{n}": rel_err(a, b, TOL[cd])
                         for n, a, b in zip(names, ev, want)})
-            res.update({f"T{T}_cuda_core_{n}": rel_err(a, b, TOL[cd]) for n, a, b in zip(
-                names, L.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want)})
             res[f"T{T}_twice"] = (0.0, all(torch.equal(a, b) for a, b in zip(
                 L.bilstm_layer_fwd_train(*args), got)) and torch.equal(ev[0], got[0])
                 and torch.equal(ev[1], got[1]))
@@ -2595,12 +2554,10 @@ def k8_fwd_instances(dev) -> dict:
         parts, lengths, w_ih, w_hh, bias, _, _, _, _ = train_layer_inputs(
             E_parts, H, G, cd, dev, SEED + 400 + H + E, full_lengths=True, ny=1)
         args = (parts, lengths, w_ih, w_hh, bias, cd)
-        o["ms"], o["ms_again"], o["cuda_core_ms"] = in_turns(
-            lambda: L.bilstm_layer_fwd_train(*args),
-            lambda: L.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), 3)
+        o["ms"] = time_ms(lambda: L.bilstm_layer_fwd_train(*args), 3)
+        o["ms_again"] = time_ms(lambda: L.bilstm_layer_fwd_train(*args), 3)
         work = train_layer_work(E, H, 2, 1, G=G)["fwd"]
         o["bound_ms"], o["bound_by"] = bound([(*work, kernel_peak(cd, "bilstm_fwd_mma"))])
-        o["cuda_core_bound_ms"], _ = bound([(*work, PEAK_F32_FLOPS)])
         o.update({"B": B_TRAIN, "T": T_TRAIN, "G": G})
         out[f"h{H}_e{E}"] = o
         del parts, args
@@ -2612,10 +2569,9 @@ def narrow_wgrad_kernels(dev) -> dict:
     ``NARROW_WGRAD_SHAPES`` (the f32 layers at H % 32 == 16, its 64-row
     tile): held against the plain twin at T = 300, 400 rows (5 groups with
     one input part, 1 with two) and at 27 rows in 3 groups, T = 5 (1e-4 x
-    max(1, max|ref|); ``bilstm_wgrad.cu`` by name too), then timed at
-    T = 1500 in turns with ``bilstm_wgrad.cu`` by name (new, old, old, new),
-    beside its bound at 495/3 TFLOP/s and at 67 (``bound_67_ms``; the
-    CUDA-core kernel's), cuBLAS f32's products, its tile, splits and the
+    max(1, max|ref|)), then timed twice at T = 1500, beside its bound at
+    495/3 TFLOP/s and at 67 (``bound_67_ms``; the deleted CUDA-core
+    kernel's rate), cuBLAS f32's products, its tile, splits and the
     blocks an SM the card holds; each tile instance's registers and
     spill-store bytes from the build's ``-Xptxas -v``."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
@@ -2646,9 +2602,8 @@ def narrow_wgrad_kernels(dev) -> dict:
             hs_f, hs_b, dgc = u(T, B, H), u(T, B, H), u(2, T, B, 4 * H)
             ops = (dgc, parts, hs_f, hs_b, G)
             new = lambda: L.bilstm_wgrad(*ops)  # noqa: E731
-            old = lambda: L.bilstm_wgrad(*ops, kernel="bilstm_wgrad")  # noqa: E731
             if T == T_TRAIN:
-                o["ms"], o["ms_again"], o["cuda_core_ms"] = in_turns(new, old, 3)
+                o["ms"], o["ms_again"] = time_ms(new, 3), time_ms(new, 3)
                 o["library_ms"] = time_ms(wgrad_library(dgc, parts, hs_f, hs_b, G), 3)
                 work = train_layer_work(E, H, 4, 2, G=G)["wgrad"]
                 o["bound_ms"], o["bound_by"] = bound([(*work, kernel_peak(cd, "bilstm_wgrad_f32"))])
@@ -2662,8 +2617,6 @@ def narrow_wgrad_kernels(dev) -> dict:
                     o["plain_ms_T300"] = plain_ms
                 res = {f"T{T}_{n}": rel_err(a, b, TOL[cd])
                        for n, a, b in zip(("dW_ih", "dW_hh"), new(), ref)}
-                res.update({f"T{T}_cuda_core_{n}": rel_err(a, b, TOL[cd])
-                            for n, a, b in zip(("dW_ih", "dW_hh"), old(), ref)})
                 torch.cuda.synchronize()
                 o["max_abs_err"].update({n: e for n, (e, _) in res.items()})
                 if not all(ok for _, ok in res.values()):
@@ -2686,10 +2639,12 @@ def phase_widths(dev) -> dict:
     ``wide_f32_kernels`` (the f32 tensor-core gates and wide forward
     there); ``lite_f32_96`` (the one-block f32 lite sweep on its main
     path); ``resident_bf16_kernels`` on layer 0 of the bf16 model at
-    embedding 72 (the tensor-core sweep's <72, 72> instance, in turns with
-    ``bilstm_bwd.cu`` by name, and ``bilstm_fwd.cu``, its forward there)
-    and on the stacked layer of the bf16 model at embedding 16
-    (``bilstm_bwd.cu``'s main path); the bf16 two-layer model at embedding
+    embedding 72 (the tensor-core sweep's and forward's <72, 72>
+    instances) and on both layers of the bf16 model at embedding 16 (the
+    tensor-core sweep's <16, 32> and <16, 16> instances, the stacked layer
+    ``bilstm_bwd.cu``'s main path before them: each in turns with the
+    run-time build and with ``bilstm_bwd.cu`` by name; the sweep's
+    instances' registers and spills from the build); the bf16 two-layer model at embedding
     72 at the train shape (2 steps and an eval step, timed); the two-layer
     models at embedding 160 at the train shape (2 steps and an eval step
     each, timed: in f32 the f32 tensor-core forward and lite sweep at 160
@@ -2725,7 +2680,7 @@ def phase_widths(dev) -> dict:
                                       ("embedding_160_float32", torch.float32, 160, WIDE_F32),
                                       ("embedding_160_bfloat16", torch.bfloat16, 160,
                                        WIDE_BF16)):
-        others = set(WIDE_BF16 + WIDE_F32 + WIDE_CUDA_CORE) - set(expect)
+        others = set(WIDE_BF16 + WIDE_F32) - set(expect)
         models[key] = f32_steps(dev, batches, expect, resident + tuple(sorted(others)),
                                 eval_step=True, dtype=dtype, embedding_size=width)
     lite_f32 = lite_f32_kernels(dev)
@@ -2733,27 +2688,32 @@ def phase_widths(dev) -> dict:
     lite_96 = lite_f32_96(dev)
     bf16_72 = resident_bf16_kernels(dev, [72], 72, G_TRAIN, 2, SEED + 72, "bilstm_bwd_mma",
                                     forwards=True)
-    bwd_16 = resident_bf16_kernels(dev, [16, 16], 16, 1, 1, SEED + 16, "bilstm_bwd")
-    # both layers of the bf16 model at embedding 56, bilstm_fwd.cu's main
-    # path until the tensor-core forward's <56, 56> and <56, 112> instances
-    # took them: that forward, in turns with bilstm_fwd.cu by name
+    # both layers of the bf16 model at embedding 16: the stacked layer
+    # (E = 16 + 16, K = 48 run as 64) was bilstm_bwd.cu's main path
+    bwd_16 = resident_bf16_kernels(dev, [16, 16], 16, 1, 1, SEED + 16, "bilstm_bwd_mma",
+                                   turns=True)
+    bwd_16_layer0 = resident_bf16_kernels(dev, [16], 16, G_TRAIN, 2, SEED + 17,
+                                          "bilstm_bwd_mma", turns=True)
+    bwd_mma_instances = {f"{H}_{E}": {"registers": r, "spill_store_bytes": sp}
+                         for (H, E), (r, sp) in sorted(ptxas_instances(
+                             "bilstm_bwd_mma", r"bilstm_bwd_mma_kernelILi(\d+)ELi(\d+)E").items())}
+    # both layers of the bf16 model at embedding 56: the tensor-core
+    # forward's <56, 56> and <56, 112> instances
     fwd_56 = resident_bf16_kernels(dev, [56], 56, G_TRAIN, 2, SEED + 56, "bilstm_bwd_mma",
-                                   forwards=True, fwd_by_name=True)
+                                   forwards=True)
     fwd_56_stacked = resident_bf16_kernels(dev, [56, 56], 56, 1, 1, SEED + 57, "bilstm_bwd_mma",
-                                           forwards=True, fwd_by_name=True)
+                                           forwards=True)
     k8_fwd = k8_fwd_instances(dev)
     narrow_wgrad = narrow_wgrad_kernels(dev)
     # the bf16 model at embedding 72 at the train shape: layer 0 on the
-    # tensor-core forward and sweep (bilstm_fwd.cu and bilstm_bwd.cu never),
-    # the stacked layer wide at 96 on the one-block bf16 wide forward and
-    # lite sweep
+    # tensor-core forward and sweep (bilstm_bwd.cu never), the stacked layer
+    # wide at 96 on the one-block bf16 wide forward and lite sweep
     models["embedding_72_bfloat16"] = f32_steps(
         dev, batches, ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
                        "bilstm_wgrad_mma", "bilstm_gates_mma",
                        "bilstm_fwd_wide_train_mma_resident", "bilstm_fwd_wide_mma_resident",
                        "bilstm_bwd_lite_mma_resident"),
-        ("bilstm_bwd", "bilstm_layer_fwd", "bilstm_layer_fwd_train", "bilstm_wgrad",
-         "bilstm_wgrad_ih"),
+        ("bilstm_bwd", "bilstm_wgrad_ih"),
         eval_step=True, dtype=torch.bfloat16, embedding_size=72)
     kernels_288 = wide_cuda_core_kernels(dev)
     kernels_96 = wide_cuda_core_kernels(dev, (80, 80), 80, 1, 1, 96, SEED + 51,
@@ -2783,7 +2743,8 @@ def phase_widths(dev) -> dict:
         steps.append({"backend": backend, **check})
     out = {"phase": "widths", "padded_layers": layers, "models": models,
            "lite_f32": lite_f32, "wide_f32": wide_f32, "lite_f32_96": lite_96,
-           "bf16_72": bf16_72, "bwd_16": bwd_16, "fwd_56": fwd_56,
+           "bf16_72": bf16_72, "bwd_16": bwd_16, "bwd_16_layer0": bwd_16_layer0,
+           "bwd_mma_instances": bwd_mma_instances, "fwd_56": fwd_56,
            "fwd_56_stacked": fwd_56_stacked, "k8_fwd": k8_fwd, "narrow_wgrad": narrow_wgrad,
            "kernels_288": kernels_288, "kernels_96": kernels_96,
            "kernels_96_float32": kernels_96_f32, "kernels_float32_wide": kernels_f32_wide,
@@ -2894,11 +2855,6 @@ def wide_layer_check(E_parts, H, G, dtype, dev, seed, T):
     got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G)
     ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
     res["dW_ih"], res["dW_hh"] = rel_err(got[0], ref[0], tol), rel_err(got[1], ref[1], tol)
-    # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in f32); the
-    # CUDA-core one by name
-    got = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-    res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(got[0], ref[0], tol),
-                                                      rel_err(got[1], ref[1], tol))
     torch.cuda.synchronize()
     return res
 
@@ -2937,15 +2893,6 @@ def resident_layer_check(E_parts, H, G, dtype, dev, seed, T):
         res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
             gnames[:nx] + gnames[-1:], list(old[0]) + list(old[1]) + [old[3]],
             refs[:nx] + refs[-1:])})
-    # the dispatch took a tensor-core forward (bf16, or 3xTF32 in f32); the
-    # CUDA-core one by name
-    res.update({f"cuda_core_{n}": rel_err(a, b, tol) for n, a, b in zip(
-        names, L.bilstm_layer_fwd_train(*fwd_args, kernel="bilstm_fwd"), want)})
-    # the dispatch took a tensor-core wgrad (bf16, or 3xTF32 in f32); the
-    # CUDA-core one by name
-    old = L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad")
-    res["cuda_core_dW_ih"], res["cuda_core_dW_hh"] = (rel_err(old[0], ref[2], tol),
-                                                      rel_err(old[1], ref[3], tol))
     torch.cuda.synchronize()
     return res
 
@@ -3329,22 +3276,15 @@ def phase_wide_kernel(dev) -> dict:
             lite_args = (xg, lengths, w_hh, hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, dtype)
             dgc = L.bilstm_bwd_lite(*lite_args).to(dtype)
             fwd_args = (xg, lengths, w_hh, dtype)
-            # new, old, old, new: the tensor-core wgrad and the CUDA-core one
-            # by name, on the same operands; the gates, the forward and the
-            # lite sweep (whose CUDA-core kernels are gone) are timed alone
-            turns = [("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G),
-                      lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"))]
+            # each alone (their CUDA-core kernels are gone); the wgrad twice
             alone = [("gates", lambda: L.bilstm_gates(parts, w_ih, bias, dtype)),
                      ("lite", lambda: L.bilstm_bwd_lite(*lite_args)),
                      ("fwd", lambda: L.bilstm_fwd_wide_train(*fwd_args)),
-                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args))]
+                     ("fwd_eval", lambda: L.bilstm_fwd_wide(*fwd_args)),
+                     ("wgrad", lambda: L.bilstm_wgrad(dgc, parts, hs_f, hs_b, G))]
             for key, new in alone:
                 add(f"{key}_ms", time_ms(new, 3))
-            for key, new, old in turns:
-                a, b, c = in_turns(new, old, 3)
-                add(f"{key}_ms", a)
-                add(f"{key}_ms_again", b)
-                add(f"{key}_cuda_core_ms", c)
+            add("wgrad_ms_again", time_ms(alone[-1][1], 3))
             if bf16:
                 # the forward's and the sweep's row tiles on the same operands
                 for rows in L.FWD_WIDE_MMA_ROWS:
@@ -3426,9 +3366,9 @@ def phase_wide_kernel(dev) -> dict:
             for k, (f, b) in wide_layer_work(sum(E_parts), H, G, size, len(dyf)).items():
                 work[k][0] += f
                 work[k][1] += b
-            del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args, fwd_args, turns
+            del parts, xg, hs_f, hs_b, cs_f, cs_b, dgc, lite_args, fwd_args, alone
         # the f32 tensor-core kernels run three tf32 products for each f32
-        # one; the CUDA-core kernels' bounds at the f32 rate beside them
+        # one; the bounds at the CUDA cores' f32 rate beside them
         add_bounds(t, work, dtype, None if bf16 else {
             "wgrad": kernel_peak(dtype, "bilstm_wgrad_f32"),
             "lite": kernel_peak(dtype, "bilstm_bwd_lite_f32"),
@@ -3490,7 +3430,7 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
                 "lite_mma": "bilstm_bwd_lite_mma_kernel",
                 "lite_f32": "bilstm_bwd_lite_f32_kernel",
                 "wgrad_mma": "bilstm_wgrad_mma_kernel",
-                "wgrad_cuda_core": ("bilstm_wgrad_kernel", "bilstm_wgrad_f32_kernel"),
+                "wgrad_f32": "bilstm_wgrad_f32_kernel",
                 "gemm": ("gemm", "nvjet", "xmma")})
     if not all(np.isfinite(losses + [eval_loss])):
         raise AssertionError(f"non-finite scaled loss: {losses}, eval {eval_loss}")
@@ -3514,10 +3454,10 @@ def phase_train_scaled(dev, warmup=2, steps=6) -> dict:
     grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16, embedding_size=E_SCALED,
                                        rnn_num_layers=LAYERS_SCALED)
     for check, want, never in (
-            (grad_check, WIDE_F32, WIDE_BF16 + WIDE_CUDA_CORE),
+            (grad_check, WIDE_F32, WIDE_BF16),
             (grad_check_bf16, ("bilstm_gates_mma", "bilstm_bwd_lite_mma", "bilstm_wgrad_mma",
                                "bilstm_fwd_wide_train_mma", "bilstm_wgrad_ih"),
-             WIDE_F32 + WIDE_CUDA_CORE)):
+             WIDE_F32)):
         ran = check["launches"]
         if any(ran.get(n, 0) <= 0 for n in want) or any(ran.get(n, 0) for n in never):
             raise AssertionError(f"the {check['dtype']} gradient step at the scaled widths ran "
@@ -3618,9 +3558,9 @@ def ragged_recurrence_check(dev) -> list:
     """The tensor-core recurrence sweeps against their twin where no size is
     round: 27 rows in 3 weight groups of 9, T = 1, D = 2, both masks, bf16
     and f32 (3xTF32); the tensor-core forwards there, bf16 and f32 (3xTF32),
-    at H = 64 and 32, T = 1 and 5, D = 1, 2 and 3, both masks; then the tensor-core wgrad
-    there at T = 1 (no row), 2 and 5, at H = 64 and at H = 96 (a partial
-    column tile)."""
+    at H = 64 and 32, T = 1 and 5, D = 1, 2 and 3, both masks; then the tensor-core wgrads
+    there, bf16 and f32 (3xTF32), at T = 1 (no row), 2 and 5, at H = 64 and
+    at H = 96 (a partial column tile)."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
     from intrepppid_tpu_torch.ops.lstm_recurrence import (
         recurrence_fwd,
@@ -3664,22 +3604,22 @@ def ragged_recurrence_check(dev) -> list:
         if not all(ok for _, ok in res.values()):
             emit({"phase": "recurrence_kernel", "failed": check})
             raise AssertionError(f"the ragged recurrence forward disagrees with its twin: {check}")
-    for H in (H_SERVE, 96):
-        for T in (1, 2, 5):
-            g = torch.Generator(device=dev).manual_seed(SEED + 85 + T)
-            hs = torch.rand(T, D_REC, 27, H, generator=g, device=dev) * 2 - 1
-            dxg = torch.rand(T, D_REC, 27, 4 * H, generator=g, device=dev) * 2 - 1
-            e, ok = rel_err(L.lstm_recurrence_wgrad_mma(hs, dxg, 3, cd),
-                            recurrence_wgrad(hs, dxg, 3, cd), TOL[cd])
-            torch.cuda.synchronize()
-            check = {"kernel": "lstm_recurrence_wgrad_mma", "B": 27, "G": 3, "T": T, "D": D_REC,
-                     "H": H, "dtype": "bfloat16", "max_abs_err": {"dw": e},
-                     "tol": f"{TOL[cd]} x max(1, max|ref|)"}
-            out.append(check)
-            if not ok:
-                emit({"phase": "recurrence_kernel", "failed": check})
-                raise AssertionError(
-                    f"the ragged recurrence wgrad disagrees with its twin: {check}")
+    for (wgrad, cd), H, T in ((k, H, T) for k in (
+        (L.lstm_recurrence_wgrad_mma, torch.bfloat16),
+        (L.lstm_recurrence_wgrad_f32, torch.float32)) for H in (H_SERVE, 96) for T in (1, 2, 5)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 85 + T)
+        hs = torch.rand(T, D_REC, 27, H, generator=g, device=dev) * 2 - 1
+        dxg = torch.rand(T, D_REC, 27, 4 * H, generator=g, device=dev) * 2 - 1
+        e, ok = rel_err(wgrad(hs, dxg, 3, cd), recurrence_wgrad(hs, dxg, 3, cd), TOL[cd])
+        torch.cuda.synchronize()
+        check = {"kernel": wgrad.__name__, "B": 27, "G": 3, "T": T, "D": D_REC,
+                 "H": H, "dtype": str(cd).replace("torch.", ""), "max_abs_err": {"dw": e},
+                 "tol": f"{TOL[cd]} x max(1, max|ref|)"}
+        out.append(check)
+        if not ok:
+            emit({"phase": "recurrence_kernel", "failed": check})
+            raise AssertionError(
+                f"the ragged recurrence wgrad disagrees with its twin: {check}")
     return out
 
 
@@ -4022,8 +3962,8 @@ def recurrence_past_288(dev) -> dict:
     twins at 1e-4 x max(1, max|ref|) (``wide_f32_checks``). Then one call of
     each at H = 512, 400 rows in 5 groups, T = 300, full-length masks, timed
     beside its plain twin (timed once, in the check), its bound (the f32
-    forward and sweep at 495/3 TFLOP/s for their three tf32 passes, the
-    f32 wgrad at 67; the bf16 rate in bf16) and cuDNN's one-layer
+    forward, sweep and wgrad at 495/3 TFLOP/s for their three tf32 passes,
+    and at 67; the bf16 rate in bf16) and cuDNN's one-layer
     bidirectional LSTM at that width in the same dtype, TF32 off, the f32
     forward at each of its row tiles, and the clusters the card holds at
     once (``h512``)."""
@@ -4191,10 +4131,11 @@ def recurrence_past_288(dev) -> dict:
                 f"{k[0]} H={k[2]} rows={k[3]}": v for k, v in L._cluster_counts.items()
                 if k[0] in names.values() and k[2] == H}
             work = recurrence_work(T, H, G, size)
-            # the forward and the sweep at 495/3 TFLOP/s (three tf32 passes);
-            # wgrad at 67 (CUDA cores)
-            add_bounds(t, work, torch.float32, {k: kernel_peak(dtype, n) for k, n in names.items()})
-            for kind in names:
+            # the forward, the sweep and the wgrad at 495/3 TFLOP/s (three tf32
+            # passes), and at 67 (the CUDA cores' rate)
+            add_bounds(t, work, torch.float32, {k: kernel_peak(dtype, n) for k, n in (
+                *names.items(), ("wgrad", "lstm_recurrence_wgrad_f32"))})
+            for kind in (*names, "wgrad"):
                 t[f"{kind}_cuda_core_bound_ms"], t[f"{kind}_cuda_core_bound_by"] = bound(
                     [(*work[kind], PEAK_F32_FLOPS)])
         del xg, valid, w, dhs, ref, hs, cs, args, dxg
@@ -4238,13 +4179,12 @@ def phase_recurrence_kernel(dev) -> dict:
                 sweep = L.recurrence_sweep_kernel(H, dtype)
                 res["dxg"] = rel_err(L.lstm_recurrence_bwd(*args), dxg, tol)
                 dw, wgrad_plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, G, dtype))
-                # the wgrad the dispatch picks (bf16: the tensor-core kernel),
-                # and there also the CUDA-core kernel by name
+                # the wgrad the dispatch picks (a tensor-core one: f32 in three
+                # tf32 passes), and the CUDA-core kernel by name
                 wgrad = L.recurrence_wgrad_kernel(H, dtype)
                 res["dw"] = rel_err(L.lstm_recurrence_wgrad(hs, dxg, G, dtype), dw, tol)
-                if wgrad == "lstm_recurrence_wgrad_mma":
-                    res["cuda_core_dw"] = rel_err(L.lstm_recurrence_wgrad(
-                        hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), dw, tol)
+                res["cuda_core_dw"] = rel_err(L.lstm_recurrence_wgrad(
+                    hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), dw, tol)
                 torch.cuda.synchronize()
                 shape = {"B": B_TRAIN, "T": T, "D": D_REC, "H": H, "G": G,
                          "dtype": str(dtype).replace("torch.", ""), "mask": mask,
@@ -4263,16 +4203,14 @@ def phase_recurrence_kernel(dev) -> dict:
                      "wgrad_plain_ms": wgrad_plain_ms}
                 t["fwd_ms"], t["fwd_ms_again"] = time_ms(new_fwd, 3), time_ms(new_fwd, 3)
                 new_wgrad = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, dtype)  # noqa: E731
-                if wgrad == "lstm_recurrence_wgrad_mma":
-                    # new, old, old, new: both wgrads in one run, on one card
-                    t["wgrad_ms"], t["wgrad_ms_again"], t["wgrad_cuda_core_ms"] = in_turns(
-                        new_wgrad, lambda: L.lstm_recurrence_wgrad(
-                            hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), 3)
-                else:
-                    t["wgrad_ms"] = time_ms(new_wgrad, 3)
+                # new, old, old, new: both wgrads in one run, on one card
+                t["wgrad_ms"], t["wgrad_ms_again"], t["wgrad_cuda_core_ms"] = in_turns(
+                    new_wgrad, lambda: L.lstm_recurrence_wgrad(
+                        hs, dxg, G, dtype, kernel="lstm_recurrence_wgrad"), 3)
                 t["bwd_ms_again"] = time_ms(lambda: L.lstm_recurrence_bwd(*args), 3)
                 add_bounds(t, recurrence_work(T, H, G, size), dtype,
-                           {"bwd": kernel_peak(dtype, sweep), "fwd": kernel_peak(dtype, fwd)})
+                           {"bwd": kernel_peak(dtype, sweep), "fwd": kernel_peak(dtype, fwd),
+                            "wgrad": kernel_peak(dtype, wgrad)})
                 library = mask == "lengths"
                 if library:
                     # yardsticks the port never calls: cuDNN for the recurrence
@@ -4308,7 +4246,8 @@ def phase_recurrence_kernel(dev) -> dict:
                       for k, v in L._cluster_counts.items() if k[0].startswith("lstm_rec")}
     ragged = ragged_recurrence_check(dev)
     out = {"phase": "recurrence_kernel", "checks": checks, "ragged_checks": ragged,
-           "timings": timings, "op_h128": op_sweep_h128(dev),
+           "timings": timings, "wgrad_f32": rec_wgrad_f32_tiles(dev),
+           "op_h128": op_sweep_h128(dev),
            "mid_f32": mid_f32_instances(dev), "mid_mma": mid_mma_instances(dev),
            "past_288": recurrence_past_288(dev),
            "max_active_clusters": cluster_counts,
@@ -4316,6 +4255,81 @@ def phase_recurrence_kernel(dev) -> dict:
                       "H = 64 and 32), which also does the input projection; cuBLAS for wgrad "
                       "in the compute dtype"}
     emit(out)
+    return out
+
+
+def rec_wgrad_f32_tiles(dev, T=T_TRAIN, D=D_REC, B=B_TRAIN, G=G_TRAIN) -> dict:
+    """The op's f32 tensor-core wgrad ``lstm_recurrence_wgrad_f32.cu`` at
+    each of its tiles (64 x 128, one block an SM; 64 x 64, two) at H = 64,
+    128 and 288, the train shape (400 rows in 5 groups, D = 2, T = 1500):
+    held against its twin at T = 300 and at 27 rows in 3 groups, T = 2
+    (1e-4 x max(1, max|ref|)), then each tile in turns with
+    ``lstm_recurrence_wgrad.cu`` by name (new, old, old, new), beside its
+    bound (hs and dxg read once, dw written once, at 3.35 TB/s; the
+    products at 495/3 TFLOP/s, and at 67: the CUDA-core kernel's rate) and
+    cuBLAS f32 (one batched product on the same operands, TF32 off), with
+    the split, the blocks, the blocks an SM the card holds and each tile's
+    registers and spill-store bytes from the build's ``-Xptxas -v``."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+    from intrepppid_tpu_torch.ops.lstm_recurrence import recurrence_wgrad
+
+    cd = torch.float32
+    built = ptxas_instances("lstm_recurrence_wgrad_f32",
+                            r"lstm_recurrence_wgrad_f32_kernelILi(\d+)EE")
+    lib = L._kernels("lstm_recurrence_wgrad_f32")
+    out = {"dispatch_tile": L.REC_WGRAD_F32_TILE_N,
+           "tiles": {n: {"registers": built.get((n,), (None, None))[0],
+                         "spill_store_bytes": built.get((n,), (None, None))[1],
+                         "blocks_an_sm": lib.lstm_recurrence_wgrad_f32_occupancy(n),
+                         "smem": L.recurrence_wgrad_f32_smem(n)}
+                     for n in L.REC_WGRAD_F32_BLOCKS}}
+    for H in (64, 128, 288):
+        o = {"B": B, "T": T, "D": D, "G": G, "H": H, "tol": "0.0001 x max(1, max|ref|)",
+             "max_abs_err": {}}
+        g = torch.Generator(device=dev).manual_seed(SEED + 700 + H)
+        for Tc, Bc, Gc in ((300, B, G), (2, 27, 3)):
+            hs = torch.rand(Tc, D, Bc, H, generator=g, device=dev) * 2 - 1
+            dxg = torch.rand(Tc, D, Bc, 4 * H, generator=g, device=dev) * 2 - 1
+            ref, plain_ms = timed_once(lambda: recurrence_wgrad(hs, dxg, Gc, cd))
+            if Tc == 300:
+                o["plain_ms_T300"] = plain_ms
+            res = {f"T{Tc}_tile{n}": rel_err(L.lstm_recurrence_wgrad_f32(
+                hs, dxg, Gc, cd, tile_n=n), ref, 1e-4) for n in L.REC_WGRAD_F32_BLOCKS}
+            torch.cuda.synchronize()
+            o["max_abs_err"].update({k: e for k, (e, _) in res.items()})
+            o.update({f"T{Tc}_tile{n}_scaled_err": scaled_err(L.lstm_recurrence_wgrad_f32(
+                hs, dxg, Gc, cd, tile_n=n), ref) for n in L.REC_WGRAD_F32_BLOCKS})
+            if not all(ok for _, ok in res.values()):
+                emit({"phase": "recurrence_kernel", "failed": o})
+                raise AssertionError(f"lstm_recurrence_wgrad_f32 at H={H} disagrees: {o}")
+            del hs, dxg, ref
+        hs = torch.rand(T, D, B, H, generator=g, device=dev) * 2 - 1
+        dxg = torch.rand(T, D, B, 4 * H, generator=g, device=dev) * 2 - 1
+        old = lambda: L.lstm_recurrence_wgrad(hs, dxg, G, cd,  # noqa: E731
+                                              kernel="lstm_recurrence_wgrad")
+        for n in L.REC_WGRAD_F32_BLOCKS:
+            a, b, c = in_turns(lambda: L.lstm_recurrence_wgrad_f32(hs, dxg, G, cd, tile_n=n),
+                               old, 3)
+            m_t, n_t, splits = L.recurrence_wgrad_f32_plan(T, B, D, G, H, L._sm_count(dev), n)
+            o[f"tile{n}"] = {"ms": a, "ms_again": b, "cuda_core_ms": c, "splits": splits,
+                             "blocks": m_t * n_t * splits * D * G}
+        o["ms"] = o[f"tile{L.REC_WGRAD_F32_TILE_N}"]["ms"]
+        Bg = B // G
+        hp = hs[:-1].view(T - 1, D, G, Bg, H).permute(1, 2, 4, 0, 3).reshape(
+            D, G, H, (T - 1) * Bg)
+        dg = dxg[1:].view(T - 1, D, G, Bg, 4 * H).permute(1, 2, 0, 3, 4).reshape(
+            D, G, (T - 1) * Bg, 4 * H)
+        o["library_ms"] = time_ms(lambda: torch.matmul(hp, dg), 3)
+        del hp, dg
+        flops = 2 * (T - 1) * B * D * H * 4 * H
+        nbytes = (T * D * B * 5 * H + D * G * H * 4 * H) * 4
+        o["bound_ms"], o["bound_by"] = bound([(flops, nbytes, kernel_peak(
+            cd, "lstm_recurrence_wgrad_f32"))])
+        o["bytes_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+        o["ops_bound_ms"] = flops / kernel_peak(cd, "lstm_recurrence_wgrad_f32") * 1e3
+        o["bound_67_ms"] = flops / PEAK_F32_FLOPS * 1e3
+        out[f"h{H}"] = o
+        del hs, dxg
     return out
 
 
@@ -4396,6 +4410,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                     "sweep_mma": "lstm_recurrence_bwd_mma_kernel",
                     "sweep_f32": "lstm_recurrence_bwd_f32_kernel",
                     "wgrad_mma": "lstm_recurrence_wgrad_mma_kernel",
+                    "wgrad_f32": "lstm_recurrence_wgrad_f32_kernel",
                     "wgrad": "lstm_recurrence_wgrad_kernel", "gemm": ("gemm", "nvjet", "xmma")})
         if not all(np.isfinite(losses + [eval_loss])):
             raise AssertionError(
@@ -4409,11 +4424,11 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         del trainer, net
         layer_kernels = tuple(n for n in train_counters() if n.startswith("bilstm_"))
         # the f32 steps at the manuscript width: the f32 tensor-core
-        # forward and sweep at 64 (three tf32 passes) and the CUDA-core wgrad
+        # forward, sweep and wgrad at 64 (three tf32 passes)
         f32 = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
-                         "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma",
+                         "lstm_recurrence_wgrad_f32"),
+                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma", "lstm_recurrence_wgrad",
                          "lstm_recurrence_bwd_mma", "lstm_recurrence_wgrad_mma",
                          "lstm_recurrence_bwd", "lstm_recurrence_bwd_mid_f32",
                          "lstm_recurrence_fwd_mid_f32", "lstm_recurrence_fwd_mid_mma",
@@ -4424,8 +4439,8 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
         # lstm_recurrence_{fwd,bwd}_mid_mma.cu
         mid = f32_steps(dev, batches,
                         ("lstm_recurrence_fwd_mid_f32", "lstm_recurrence_bwd_mid_f32",
-                         "lstm_recurrence_wgrad"),
-                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma",
+                         "lstm_recurrence_wgrad_f32"),
+                        ("lstm_recurrence_fwd", "lstm_recurrence_fwd_mma", "lstm_recurrence_wgrad",
                          "lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
                          "lstm_recurrence_fwd_f32", "lstm_recurrence_wgrad_mma",
                          "lstm_recurrence_bwd", "lstm_recurrence_fwd_mid_mma",
@@ -4437,9 +4452,21 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
                              ("lstm_recurrence_fwd", "lstm_recurrence_bwd",
                               "lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma",
                               "lstm_recurrence_bwd_f32", "lstm_recurrence_wgrad",
-                              "lstm_recurrence_bwd_mid_f32", "lstm_recurrence_fwd_f32",
+                              "lstm_recurrence_wgrad_f32", "lstm_recurrence_bwd_mid_f32",
+                              "lstm_recurrence_fwd_f32",
                               "lstm_recurrence_fwd_mid_f32") + layer_kernels,
                              dtype=torch.bfloat16, embedding_size=128, rnn_num_layers=1)
+        # the f32 steps (the manuscript's, and one layer at embedding 128)
+        # in turns with the wgrad pinned to lstm_recurrence_wgrad.cu (the
+        # dispatch before the f32 tensor-core wgrad)
+        pin = lambda keep: lambda H, cd: (  # noqa: E731
+            "lstm_recurrence_wgrad" if cd == torch.float32 else keep(H, cd))
+        groups = {"wgrad": ("lstm_recurrence_wgrad_kernel", "lstm_recurrence_wgrad_f32_kernel")}
+        turns = {"manuscript": pinned_step_turns(dev, batches, "recurrence_wgrad_kernel", pin,
+                                                 groups),
+                 "embedding_128": pinned_step_turns(dev, batches, "recurrence_wgrad_kernel", pin,
+                                                    groups, embedding_size=128,
+                                                    rnn_num_layers=1)}
         # the card's gradients against the CPU's, both on this backend
         grad_check = train_grad_check(dev)
         grad_check_bf16 = train_grad_check(dev, dtype=torch.bfloat16)
@@ -4457,17 +4484,19 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "lstm_recurrence_fwd_mid_f32")
     wide = ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
     wide_f32 = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32")
-    f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad",),
+    f32_320 = f32_steps(dev, batches, wide_f32 + ("lstm_recurrence_wgrad_f32",),
                         old + wide + ("lstm_recurrence_bwd_mma", "lstm_recurrence_bwd_f32",
-                                      "lstm_recurrence_wgrad_mma") + layer_kernels,
+                                      "lstm_recurrence_wgrad_mma",
+                                      "lstm_recurrence_wgrad") + layer_kernels,
                         eval_step=True, embedding_size=320, rnn_num_layers=1)
     grad_check_320 = {str(dtype).replace("torch.", ""): train_grad_check(
         dev, dtype=dtype, eval_step=True, expect=expect, never=never, embedding_size=320,
         rnn_num_layers=1)
         for dtype, expect, never in (
-            (torch.float32, wide_f32 + ("lstm_recurrence_wgrad",), wide + old + layer_kernels),
+            (torch.float32, wide_f32 + ("lstm_recurrence_wgrad_f32",),
+             wide + old + ("lstm_recurrence_wgrad",) + layer_kernels),
             (torch.bfloat16, wide + ("lstm_recurrence_wgrad_mma",),
-             old + wide_f32 + layer_kernels))}
+             old + wide_f32 + ("lstm_recurrence_wgrad_f32",) + layer_kernels))}
     median = float(np.median(step_ms))
     out = {"phase": "recurrence_path", "backend": "recurrence", "pairs": PAIRS_TRAIN,
            "T": T_TRAIN, "dtype": "bfloat16", "optimizer": "ranger21_xx", "dropout": 0.3,
@@ -4476,7 +4505,7 @@ def phase_recurrence_path(dev, warmup=2, steps=4) -> dict:
            "eval_loss": eval_loss, "eval_step_ms": eval_ms, "launches": launches,
            "peak_memory_gib": peak_gib, "step_profile": breakdown, "float32_steps": f32,
            "float32_steps_embedding_128": mid, "bfloat16_steps_embedding_128": mid_bf16,
-           "float32_steps_embedding_320": f32_320,
+           "float32_steps_embedding_320": f32_320, "wgrad_pinned_turns": turns,
            "grad_check": grad_check,
            "grad_check_bf16": grad_check_bf16, "grad_check_embedding_320": grad_check_320}
     emit(out)
@@ -4489,7 +4518,7 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
     ``tools/bench_infer.py`` builds it."""
     from intrepppid_tpu_torch.__main__ import main as cli
     from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
-    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd, bilstm_layer_fwd_f32
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd_f32, bilstm_layer_fwd_mma
     from intrepppid_tpu_torch.utils.convert import save_reference_checkpoint
 
     spm = ROOT / "tests" / "fixtures" / "golden_spm.model"
@@ -4515,13 +4544,13 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
                         "--vocab_size", str(vocab), "--device", device])
 
         # the main path: the command, file to file, through the f32
-        # tensor-core forward and never bilstm_fwd.cu
-        bilstm_layer_fwd.launches = bilstm_layer_fwd_f32.launches = 0
+        # tensor-core forward and never the bf16 one
+        bilstm_layer_fwd_mma.launches = bilstm_layer_fwd_f32.launches = 0
         t = time.perf_counter()
         n = run(pairs, tmp / "scores.csv", str(dev))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches, cuda_core_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd.launches
+        launches, bf16_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd_mma.launches
         got = [ln.split(",") for ln in (tmp / "scores.csv").read_text().splitlines()]
         # where the time goes: the same command under the profiler (device
         # busy time and idle share), and the sequence library's tokenising
@@ -4542,10 +4571,10 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
         raise AssertionError(f"infer wrote {len(ids)} rows (returned {n}), or out of input order")
     if not np.all(np.isfinite(probs)) or not np.all((probs > 0) & (probs < 1)):
         raise AssertionError("infer wrote probabilities that are not finite values in (0, 1)")
-    if launches <= 0 or cuda_core_launches != 0:
+    if launches <= 0 or bf16_launches != 0:
         raise AssertionError(
-            f"infer launched the f32 tensor-core forward {launches} times and bilstm_fwd.cu "
-            f"{cuda_core_launches} times (want > 0 and 0)")
+            f"infer launched the f32 tensor-core forward {launches} times and the bf16 one "
+            f"{bf16_launches} times (want > 0 and 0)")
     if [r[0] for r in ref] != ids[:batch]:
         raise AssertionError("the CPU run of the first batch wrote other ids")
     err = float(np.abs(probs[:batch] - np.array([float(r[1]) for r in ref])).max())
@@ -4554,7 +4583,8 @@ def phase_infer(dev, n_seqs=1200, n_pairs=4000, trunc_len=1500, batch=64, vocab=
     out = {"phase": "infer", "sequences": n_seqs, "pairs": n_pairs, "trunc_len": trunc_len,
            "batch_size": batch, "vocab": vocab, "file_to_file_s": seconds,
            "pairs_per_s": n_pairs / seconds, "launches": launches,
-           "cuda_core_launches": cuda_core_launches, "max_abs_err_vs_cpu": err, "cpu_sample": batch, "cpu_reference_s": cpu_s,
+           "bf16_launches": bf16_launches, "max_abs_err_vs_cpu": err, "cpu_sample": batch,
+           "cpu_reference_s": cpu_s,
            "tokenise_library_s": tokenise_s, "second_run_profile": breakdown}
     emit(out)
     return out
@@ -4594,8 +4624,7 @@ def main() -> int:
     rpath = run(phase_recurrence_path, dev)
     infer = run(phase_infer, dev)
 
-    # the f32 eval forward on the tensor cores (3xTF32): the serve path;
-    # bilstm_fwd.cu by name on the same operands, in turns, is a yardstick
+    # the f32 eval forward on the tensor cores (3xTF32): the serve path
     f32 = kern["timings"]["float32"]
     h32 = kern["timings"]["h32_float32"]
     kernels = [{
@@ -4612,14 +4641,12 @@ def main() -> int:
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "ms_again": f32["kernel_ms_again"],
-        "cuda_core_ms": f32["cuda_core_ms"],
-        "h32_ms": h32["kernel_ms"], "h32_cuda_core_ms": h32["cuda_core_ms"],
+        "h32_ms": h32["kernel_ms"], "h32_ms_again": h32["kernel_ms_again"],
         "h32_plain_ms": h32["plain_ms"], "h32_bound_ms": h32["bound_ms"],
         "h32_library_ms": h32["library_ms"],
         "infer_launches": infer["launches"],
         "work": "eval variant, both layers of one bulk serve dispatch, f32, B=800, T=1500, H=64 "
-                "(16-row tiles); bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
-                "bilstm_fwd.cu by name on the same operands (new, old, old, new); library: "
+                "(16-row tiles); bound at 495/3 TFLOP/s (three tf32 passes); library: "
                 "cuDNN nn.LSTM inference, TF32 off; h32_*: row 3 at H=32, 96 rows, T=300",
     }]
     # the f32 forward's 320-thread instance at E = H = 80: layer 0 of the
@@ -4680,8 +4707,8 @@ def main() -> int:
         }
         if key == "fwd":
             entry.update({
-                "ms_again": t32["fwd_ms_again"], "cuda_core_ms": t32["fwd_cuda_core_ms"],
-                "eval_ms": t32["fwd_eval_ms"], "eval_cuda_core_ms": t32["fwd_eval_cuda_core_ms"],
+                "ms_again": t32["fwd_ms_again"],
+                "eval_ms": t32["fwd_eval_ms"], "eval_ms_again": t32["fwd_eval_ms_again"],
                 "eval_bound_ms": t32["fwd_eval_bound_ms"],
                 "eval_library_ms": t32["cudnn_inference_ms"],
                 "scaled_err": max(c["fwd_scaled_err"] for c in tk["checks"]
@@ -4691,38 +4718,35 @@ def main() -> int:
             })
             entry.update(h80_fields("fwd", name))
             entry["work"] += ("; 8-row tiles; bound at 495/3 TFLOP/s (three tf32 passes); "
-                              "cuda_core_ms: bilstm_fwd.cu by name on the same operands (new, "
-                              "old, old, new); eval_*: the eval variant on them; library: cuDNN "
+                              "eval_*: the eval variant on them; library: cuDNN "
                               "nn.LSTM training forward, TF32 off; tf32_one_pass_scaled_err: the "
                               "twin in one tf32 pass, against the f32 tolerance 1e-4" + h80_work)
         else:
             # the scaled widths: layer 0 and one E = 2 x 256 layer at H = 256,
             # whose f32 main path is the f32 gradient step there
             entry.update({
-                "ms_again": t32["wgrad_ms_again"], "cuda_core_ms": t32["wgrad_cuda_core_ms"],
+                "ms_again": t32["wgrad_ms_again"],
                 "scaled_err": max(c["wgrad_scaled_err"] for c in tk["checks"]
                                   if c["dtype"] == "float32"),
                 **{f"h256_{k}": w32[f"wgrad_{k}"]
-                   for k in ("ms", "ms_again", "cuda_core_ms", "library_ms", "plain_ms",
-                             "bound_ms", "bound_by", "cuda_core_bound_ms")},
+                   for k in ("ms", "ms_again", "library_ms", "plain_ms", "bound_ms",
+                             "bound_by")},
+                "h256_bound_67_ms": w32["wgrad_cuda_core_bound_ms"],
                 "h256_launches": scaled["grad_check"]["launches"].get(name, 0),
                 "h256_max_abs_err": max(v for c in wk["checks"] + wk["ragged_checks"]
                                         if c["dtype"] == "float32" and c["H"] == E_SCALED
                                         for n, v in c["max_abs_err"].items()
                                         if n in train_errs[key]),
             })
-            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes); cuda_core_ms: "
-                              "bilstm_wgrad.cu by name on the same operands (new, old, old, "
-                              "new); library: cuBLAS f32 products, TF32 off; h256_*: layer 0 "
+            entry["work"] += ("; bound at 495/3 TFLOP/s (three tf32 passes; h256_bound_67_ms "
+                              "at 67); library: cuBLAS f32 products, TF32 off; h256_*: layer 0 "
                               "(E=256, 5 groups) + one E=2x256 layer at H=256, T=1500, its "
                               "launches in the f32 gradient step at the scaled widths")
             # its 64-row tile: layer 0 of the f32 model at embedding 80 (E = H =
-            # 80), bilstm_wgrad.cu's main path until this tile took it, and
-            # the other f32 layers at H % 32 == 16
+            # 80), and the other f32 layers at H % 32 == 16
             h80, nw = e80["float32"]["wgrad"], widths["narrow_wgrad"]
             entry.update({f"h80_{k}": h80[k] for k in (
-                "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                "library_ms", "scaled_err", "tiles")})
+                "ms", "plain_ms", "library_ms", "scaled_err", "tiles")})
             entry.update({
                 "h80_bound_ms": h80["wgrad_bound_ms"], "h80_bound_by": h80["wgrad_bound_by"],
                 "h80_bound_67_ms": h80["wgrad_bound_67_ms"],
@@ -4731,31 +4755,25 @@ def main() -> int:
                     c for c in widths["grad_checks"] if c["backend"] == "layer"
                     and c.get("embedding_size") == 80)["launches"].get(name, 0),
                 "h80_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
-                                       if not n.startswith(("cuda_core_", "tile_"))),
+                                       if not n.startswith("tile_")),
                 "h80_tiles_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
                                              if n.startswith("tile_")),
-                "h80_step_turns": train["steps_embedding_80"]["float32"]["turns"],
                 "narrow_instances": nw["instances"],
                 **{f"narrow_{k}": {s_: o[k] for s_, o in nw.items() if s_ != "instances"}
-                   for k in ("ms", "ms_again", "cuda_core_ms", "bound_ms", "bound_67_ms",
+                   for k in ("ms", "ms_again", "bound_ms", "bound_67_ms",
                              "library_ms", "tile", "splits", "blocks")},
                 "narrow_max_abs_err": max(v for s_, o in nw.items() if s_ != "instances"
-                                          for n, v in o["max_abs_err"].items()
-                                          if "cuda_core" not in n)})
+                                          for v in o["max_abs_err"].values())})
             if min(entry["h80_launches"], entry["h80_grad_check_launches"]) <= 0:
                 raise AssertionError("the f32 model at embedding 80 never ran bilstm_wgrad_f32")
             entry["work"] += ("; h80_*: its 64 x 160 tile on layer 0 of the f32 two-layer model "
                               "at embedding 80 (E=H=80, 5 groups), 400 rows, T=1500, launches "
-                              "in that model's steps (both layers), cuda_core_ms: "
-                              "bilstm_wgrad.cu by name in turns (its bound cuda_core_bound_ms "
-                              "at 67), h80_bound_67_ms: this work at 67 TFLOP/s, h80_tiles: "
-                              "each tile pinned in turns with bilstm_wgrad.cu, "
-                              "h80_step_turns: the model's f32 step profiled on the dispatch "
-                              "and with this layer's wgrad pinned to bilstm_wgrad.cu (dispatch, "
-                              "pinned, pinned, dispatch); narrow_*: each f32 layer shape at "
-                              "H % 32 == 16 at the train shape in turns with bilstm_wgrad.cu "
-                              "(library: cuBLAS f32), narrow_instances: each tile's registers, "
-                              "spills and blocks an SM")
+                              "in that model's steps (both layers), h80_bound_67_ms: this work "
+                              "at 67 TFLOP/s, h80_tiles: each tile pinned in turns with the "
+                              "dispatch's (dispatch_ms); narrow_*: each f32 layer shape at "
+                              "H % 32 == 16 at the train shape, timed twice (library: cuBLAS "
+                              "f32), narrow_instances: each tile's registers, spills and blocks "
+                              "an SM")
         kernels.append(entry)
     # the f32 step's sweep, 3xTF32; bilstm_bwd.cu asked for by name on the
     # same operands, in turns (new, old, old, new), is a yardstick there
@@ -4824,38 +4842,32 @@ def main() -> int:
         if entry["launches"] <= 0:
             raise AssertionError(f"the {dtype} model at embedding 80 never ran {name}")
         kernels.append(entry)
-    # bilstm_bwd.cu: the bf16 resident sweeps the tensor-core one does not
-    # take; its main path is the stacked layer (E = 16 + 16, H = 16) of the
-    # bf16 two-layer model at embedding 16 (phase widths' gradient and eval
-    # step), timed there. Also by name on layer 0 at embedding 80 in f32, in
-    # turns with the one-stage sweep
-    b16, b72 = widths["bwd_16"]["bwd"], widths["bf16_72"]["bwd"]
+    # the tensor-core sweep at H = 16 (the bf16 model at embedding 16): its
+    # <16, 32> instance on the stacked layer (K = 48 run as 64), bilstm_bwd.cu's
+    # main path until it, and its <16, 16> one on layer 0; each in turns with
+    # the run-time build and with bilstm_bwd.cu by name, which runs on no path
+    b16, b16l0, b72 = widths["bwd_16"]["bwd"], widths["bwd_16_layer0"]["bwd"], \
+        widths["bf16_72"]["bwd"]
     g16 = next(c for c in widths["grad_checks"]
                if c["backend"] == "layer" and c.get("embedding_size") == 16)
-    kernels.append({
-        "name": "bilstm_bwd",
-        "route": "cuda",
-        "source": "intrepppid_tpu_torch/csrc/bilstm_bwd.cu",
-        "replaces": "intrepppid_tpu/ops/lstm_pallas_layer.py:436",
-        "launches": g16["launches"].get("bilstm_bwd", 0),
-        "max_abs_err": max(b16["max_abs_err"].values()),
-        "ms": b16["ms"],
-        "plain_ms": b16["plain_ms"],
-        "bound_ms": b16["bound_ms"],
-        "bound_by": b16["bound_by"],
-        "library_ms": b16["library_ms"],
-        "cuda_core_bound_ms": b16["cuda_core_bound_ms"],
-        "float32_ms": e80["float32"]["bwd"]["cuda_core_ms"],
-        "float32_max_abs_err": max(v for n, v in e80["float32"]["bwd"]["max_abs_err"].items()
-                                   if n.startswith("cuda_core_")),
-        "work": "the stacked layer of the bf16 two-layer model at embedding 16 (E=16+16, H=16, "
-                "one group, one dy stream a direction), 400 rows, T=1500; launches: that "
-                "model's gradient and eval step; bound at the bf16 rate (cuda_core_bound_ms at "
-                "67 TFLOP/s, its f32 FMAs); library: cuDNN one-layer nn.LSTM backward (input) "
-                "in bf16 at E=32, H=16, TF32 off; float32_*: by name on the operands of layer 0 "
-                "of the f32 two-layer model at embedding 80 (E=H=80), in turns with "
-                "bilstm_bwd_f32_onestage (no longer asked for by name in bf16 past H=64)",
-    })
+    h16_fields = {}
+    for tag, o in (("h16s", b16), ("h16", b16l0)):
+        h16_fields.update({f"{tag}_{k}": o[k] for k in (
+            "ms", "ms_again", "generic_ms", "cuda_core_ms", "ms_in_cuda_core_turns", "plain_ms",
+            "bound_ms", "bound_by", "cuda_core_bound_ms", "library_ms", "scaled_err")})
+        h16_fields[f"{tag}_max_abs_err"] = max(v for n, v in o["max_abs_err"].items()
+                                               if not n.startswith(("cuda_core_", "generic_")))
+        h16_fields[f"{tag}_generic_max_abs_err"] = max(
+            v for n, v in o["max_abs_err"].items() if n.startswith("generic_"))
+        h16_fields[f"{tag}_cuda_core_max_abs_err"] = max(
+            v for n, v in o["max_abs_err"].items() if n.startswith("cuda_core_"))
+    h16_fields["h16_grad_check_launches"] = g16["launches"].get("bilstm_bwd_mma", 0)
+    h16_fields["h16_grad_check_cuda_core_launches"] = g16["launches"].get("bilstm_bwd", 0)
+    h16_fields["instances"] = widths["bwd_mma_instances"]
+    if h16_fields["h16_grad_check_launches"] <= 0 \
+            or h16_fields["h16_grad_check_cuda_core_launches"] != 0:
+        raise AssertionError("the bf16 model at embedding 16 did not run its sweeps on "
+                             "bilstm_bwd_mma alone")
     kernels.append({
         "name": "bilstm_bwd_mma",
         "route": "cuda",
@@ -4889,6 +4901,7 @@ def main() -> int:
                 "bilstm_bwd_mma", 0),
         "h72_max_abs_err": max(v for n, v in b72["max_abs_err"].items()
                                if not n.startswith("cuda_core_")),
+        **h16_fields,
         "work": "both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
                 "cuda_core_ms: bilstm_bwd.cu on the same operands in the same run; library: "
                 "cuDNN nn.LSTM backward (input) in bf16; h80_*: its <80, 80> instance on layer "
@@ -4898,7 +4911,15 @@ def main() -> int:
                 "(K=144 run as 160 over zero columns) on layer 0 of the bf16 two-layer model at "
                 "embedding 72 (E=H=72, 5 groups, two dy streams), 400 rows, T=1500, launches in "
                 "that model's timed steps, library: cuDNN one-layer bf16 backward (input) at "
-                "E=H=72",
+                "E=H=72; h16s_* / h16_*: its <16, 32> (K=48 run as 64) and <16, 16> instances "
+                "on the stacked layer (E=16+16, one group, one dy stream) and layer 0 (E=H=16, "
+                "5 groups, two dy streams) of the bf16 model at embedding 16, 400 rows, "
+                "T=1500, in turns with the run-time <0, 0> build (generic_ms) and with "
+                "bilstm_bwd.cu by name (cuda_core_ms; its bound cuda_core_bound_ms at 67; "
+                "ms_in_cuda_core_turns: this kernel's two times in those turns), library: "
+                "cuDNN one-layer bf16 backward (input) at those widths; h16_grad_check_*: "
+                "that model's gradient and eval step; instances: each instance's registers "
+                "and spills",
     })
     if min(kernels[-1]["h80_launches"], kernels[-1]["h72_launches"],
            kernels[-1]["h72_grad_check_launches"]) <= 0:
@@ -4930,16 +4951,14 @@ def main() -> int:
             "bound_ms": t16[f"{key}_bound_ms"],
             "bound_by": t16[f"{key}_bound_by"],
             "library_ms": t16[library16],
-            "cuda_core_ms": t16[f"{key}_cuda_core_ms"],
             "ms_again": t16[f"{key}_ms_again"],
             "work": f"both layers of one train step, bf16, 400 rows (5 groups), T=1500, H=64; "
-                    f"cuda_core_ms: the CUDA-core kernel on the same operands in the same run "
-                    f"(new, old, old, new); library: {library16} in bf16",
+                    f"library: {library16} in bf16",
         }
         if library32:
             entry["library_f32_ms"] = t32[library32]
             # its <80, 80> and <72, 72> instances: layer 0 of the bf16 models
-            # at embedding 80 and 72, in turns with bilstm_fwd.cu by name
+            # at embedding 80 and 72
             for tag, o, launches in (
                     ("h80", e80["bfloat16"][key], e80_launches["bfloat16"][name]),
                     ("h72", widths["bf16_72"][key],
@@ -4960,44 +4979,37 @@ def main() -> int:
                               "groups), 400 rows, T=1500, launches in those models' steps, "
                               "library: cuDNN one-layer bf16")
             # its <56, 56> and <56, 112> instances (the latter with a k8
-            # tail): both layers of the bf16 model at embedding 56,
-            # bilstm_fwd.cu's main path until they took it, in turns with
-            # bilstm_fwd.cu by name
+            # tail): both layers of the bf16 model at embedding 56
             g56 = next(c for c in widths["grad_checks"]
                        if c["backend"] == "layer" and c.get("embedding_size") == 56)
             for tag, o in (("h56", widths["fwd_56"][key]),
                            ("h56s", widths["fwd_56_stacked"][key])):
                 entry.update({f"{tag}_{k}": o[k] for k in (
-                    "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms", "scaled_err")})
-                entry[f"{tag}_max_abs_err"] = max(v for n, v in o["max_abs_err"].items()
-                                                  if not n.startswith("cuda_core_"))
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "scaled_err")})
+                entry[f"{tag}_max_abs_err"] = max(o["max_abs_err"].values())
             entry["h56_launches"] = g56["launches"].get(name, 0)
             if entry["h56_launches"] <= 0:
                 raise AssertionError(f"the bf16 model at embedding 56 never ran {name}")
             entry["work"] += ("; h56_* / h56s_*: its <56, 56> and <56, 112> instances on both "
                               "layers of the bf16 two-layer model at embedding 56 (E=56, 5 "
-                              "groups; E=56+56, 1 group), 400 rows, T=1500, cuda_core_ms: "
-                              "bilstm_fwd.cu by name in turns (new, old, old, new; its bound "
-                              "cuda_core_bound_ms at 67), h56_launches: that model's gradient "
-                              "and eval step, library: cuDNN one-layer bf16")
+                              "groups; E=56+56, 1 group), 400 rows, T=1500, h56_launches: that "
+                              "model's gradient and eval step, library: cuDNN one-layer bf16")
             if key == "fwd":
                 k8 = widths["k8_fwd"]
                 entry.update({f"k8_{k}": {s_: o[k] for s_, o in k8.items()} for k in (
-                    "ms", "ms_again", "cuda_core_ms", "bound_ms", "cuda_core_bound_ms",
-                    "registers", "spill_store_bytes", "k8_tail")})
+                    "ms", "ms_again", "bound_ms", "registers", "spill_store_bytes",
+                    "k8_tail")})
                 entry["k8_max_abs_err"] = max(v for o in k8.values()
-                                              for n, v in o["max_abs_err"].items()
-                                              if "cuda_core" not in n)
-                entry["work"] += ("; k8_*: each instance that took a shape from bilstm_fwd.cu "
-                                  "(keys hH_eE), the train variant at 400 rows, T=1500, in "
-                                  "turns with bilstm_fwd.cu by name, its registers and spills; "
+                                              for v in o["max_abs_err"].values())
+                entry["work"] += ("; k8_*: each instance that took a shape from the deleted "
+                                  "bilstm_fwd.cu (keys hH_eE), the train variant at 400 rows, "
+                                  "T=1500, timed twice, its registers and spills; "
                                   "k8_max_abs_err over both variants at 27 rows in 3 groups, "
                                   "T = 1 and 5")
         else:
             # the scaled step's shapes: layer 0 and one E = 2 x 256 layer at H = 256
             entry.update({f"h256_{k}": w16[f"wgrad_{k}"]
-                          for k in ("ms", "cuda_core_ms", "library_ms", "plain_ms", "bound_ms",
+                          for k in ("ms", "ms_again", "library_ms", "plain_ms", "bound_ms",
                                     "bound_by", "turns_ms", "turns_ms_again",
                                     "library_turns_ms")})
             entry["h256_launches"] = scaled["launches"][name]
@@ -5008,17 +5020,14 @@ def main() -> int:
             # layer 0 of the bf16 model at embedding 80 (H = 80: the masked gate tile)
             h80 = e80["bfloat16"]["wgrad"]
             entry.update({f"h80_{k}": h80[k] for k in (
-                "ms", "ms_again", "cuda_core_ms", "cuda_core_bound_ms", "plain_ms",
-                "library_ms", "scaled_err")})
+                "ms", "plain_ms", "library_ms", "scaled_err")})
             entry.update({"h80_bound_ms": h80["wgrad_bound_ms"],
                           "h80_bound_by": h80["wgrad_bound_by"],
                           "h80_launches": e80_launches["bfloat16"][name],
-                          "h80_max_abs_err": max(v for n, v in h80["max_abs_err"].items()
-                                                 if not n.startswith("cuda_core_"))})
+                          "h80_max_abs_err": max(h80["max_abs_err"].values())})
             entry["work"] += ("; h80_*: layer 0 of the bf16 two-layer model at embedding 80 "
                               "(E=H=80, 5 groups), its launches in that model's steps, "
-                              "cuda_core_ms: bilstm_wgrad.cu by name in turns, library: "
-                              "cuBLAS bf16 products")
+                              "library: cuBLAS bf16 products")
             # the bf16 wide route's split: dW_hh alone on this kernel, dW_ih on
             # cuBLAS (bilstm_wgrad_ih, counted per layer call)
             for tag, o in wk["wgrad_split"].items():
@@ -5450,15 +5459,15 @@ def main() -> int:
     h32f = [t for t in rk["timings"] if t["dtype"] == "float32" and t["mask"] == "lengths"
             and t["H"] == 32][0]
     rec_errs = {"fwd": ("hs", "cs", "hn", "cn"), "bwd": ("dxg",), "wgrad": ("dw",)}
-    # the f32 forward's, the f32 sweep's and the CUDA-core wgrad's main path
-    # is the f32 step
+    # the f32 forward's, the f32 sweep's and the f32 tensor-core wgrad's
+    # main path is the f32 step
     rec_launches = {n: rpath["float32_steps"]["launches"][n]
                     for n in ("lstm_recurrence_fwd_f32", "lstm_recurrence_bwd_f32",
-                              "lstm_recurrence_wgrad")}
+                              "lstm_recurrence_wgrad_f32")}
     f32_step = rpath["float32_steps"]["step_profile"]
     for key, name, replaces in (("fwd", "lstm_recurrence_fwd_f32", "lstm_pallas.py:116"),
                                 ("bwd", "lstm_recurrence_bwd_f32", "lstm_pallas.py:185"),
-                                ("wgrad", "lstm_recurrence_wgrad", "lstm_pallas.py:185")):
+                                ("wgrad", "lstm_recurrence_wgrad_f32", "lstm_pallas.py:185")):
         ms_bound, bound_by = bound([(sum(t[f"{key}_flops"] for t in step),
                                      sum(t[f"{key}_bytes"] for t in step),
                                      kernel_peak(torch.float32, name))])
@@ -5489,12 +5498,51 @@ def main() -> int:
             entry.update({f"h512_{k}": h512[f"{key}_{k}"]
                           for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
             entry["h512_library_ms"] = h512.get(f"{key}_library_ms")
+            entry["h512_bound_67_ms"] = h512["wgrad_cuda_core_bound_ms"]
             entry["h512_max_abs_err"] = max(
                 v for c in past["checks"] if c["dtype"] == "float32"
                 for n, v in c["max_abs_err"].items() if n in rec_errs[key])
             entry["work"] += ("; h512_*: one call at H=512 (400 rows, 5 groups, T=300), f32, "
-                              "library: cuDNN one bidirectional nn.LSTM layer at that width; "
+                              "bound at 495/3 (h512_bound_67_ms at 67); "
                               "h512_max_abs_err over H=288, 512 and 1024")
+            # lstm_recurrence_wgrad.cu (CUDA cores), on no path since, by
+            # name in turns; each tile at H = 64, 128, 288; the f32 steps in
+            # turns with the wgrad pinned to it; every path's launches
+            wf = rk["wgrad_f32"]
+            flops = sum(t["wgrad_flops"] for t in step)
+            entry.update({
+                "ms_again": sum(t["wgrad_ms_again"] for t in step),
+                "cuda_core_ms": sum(t["wgrad_cuda_core_ms"] for t in step),
+                "bound_67_ms": flops / PEAK_F32_FLOPS * 1e3,
+                "bytes_bound_ms": sum(t["wgrad_bytes"] for t in step) / PEAK_BYTES * 1e3,
+                "tiles": wf["tiles"], "dispatch_tile": wf["dispatch_tile"],
+                **{f"{h}_{k}": wf[h][k] for h in ("h64", "h128", "h288") for k in (
+                    "ms", "tile64", "tile128", "bound_ms", "bound_by", "bytes_bound_ms",
+                    "ops_bound_ms", "bound_67_ms", "library_ms", "plain_ms_T300")},
+                "tiles_max_abs_err": max(v for h in ("h64", "h128", "h288")
+                                         for v in wf[h]["max_abs_err"].values()),
+                "step_turns": rpath["wgrad_pinned_turns"],
+                "h128_launches": rpath["float32_steps_embedding_128"]["launches"][name],
+                "h320_launches": rpath["float32_steps_embedding_320"]["launches"][name],
+                "h80_grad_check_launches": next(
+                    c for c in widths["grad_checks"] if c["backend"] == "recurrence"
+                    and c["dtype"] == "float32")["launches"].get(name, 0)})
+            entry["work"] += ("; bound at 495/3 TFLOP/s or the bytes (three tf32 passes; "
+                              "bound_67_ms at 67, the CUDA cores' rate); cuda_core_ms: "
+                              "lstm_recurrence_wgrad.cu by name on the same operands (new, old, "
+                              "old, new); hN_*: one layer, 400 rows in 5 groups, D=2, T=1500, "
+                              "at H=N, the dispatch's tile (dispatch_tile) and each tile "
+                              "(tileN: ms, ms_again, cuda_core_ms in turns, splits, blocks), "
+                              "library: one cuBLAS f32 batched product; tiles: registers, "
+                              "spills, blocks an SM, shared memory; step_turns: the f32 "
+                              "recurrence-backend steps (manuscript; one layer at embedding "
+                              "128) profiled on the dispatch and with the wgrad pinned to "
+                              "lstm_recurrence_wgrad.cu (dispatch, pinned, pinned, dispatch); "
+                              "h128_ / h320_launches: the one-layer f32 models at embedding 128 "
+                              "(recurrence backend) and 320 (default backend)")
+            if min(entry["h128_launches"], entry["h320_launches"],
+                   entry["h80_grad_check_launches"]) <= 0:
+                raise AssertionError(f"an f32 path on the recurrence op never ran {name}")
         if key == "bwd":
             entry.update({"ms_again": sum(t["bwd_ms_again"] for t in step),
                           "g5_ms": step[0]["bwd_ms"],
@@ -5793,7 +5841,7 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    if len(kernels) != 38 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 37 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

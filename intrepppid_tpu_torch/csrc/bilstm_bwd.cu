@@ -5,7 +5,10 @@
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _bwd_kernel_packed (via
 //     _bwd_pallas_packed) -- the train step's layer backward at 2H == 128.
 // Its weight-gradient products (dW_ih, dW_hh) are the second launch,
-// bilstm_wgrad.cu; see there for why they are not in this sweep.
+// bilstm_wgrad_mma.cu (bf16) or bilstm_wgrad_f32.cu (f32): the TPU kernel
+// sums them in VMEM scratch across its sequential time grid, but here the
+// sweep's block already holds the resident weights and the f32 sums fit
+// neither beside them nor in registers, so the sweep writes dgc once.
 //
 // Function: block (row tile, direction d) walks the positions in the
 // reverse of that direction's forward order (d = 0: T-1 .. 0, d = 1:
@@ -20,7 +23,7 @@
 //     position at or past the row's length gets dgates = 0, and there dh and
 //     dc pass through unchanged;
 //   * dgc = dgates rounded to the compute dtype, written to the (2, T, B, 4H)
-//     stream that bilstm_wgrad.cu reads;
+//     stream that the weight-gradient kernels read;
 //   * dx = dgc @ W_ih[d] per input part, per direction, unsummed (compute-
 //     dtype operands, f32 accumulate), written in the compute dtype;
 //   * dh = dgc @ W_hh[d, g] + (masked ? dh : 0); dc = masked ? dc : dc_t * f.

@@ -8,7 +8,7 @@
 //     _bwd_pallas_packed) -- the train step's layer backward at 2H == 128,
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (via _bwd_pallas)
 //     at the other widths that fit.
-// Their weight-gradient products stay in bilstm_wgrad.cu.
+// Their weight-gradient products are bilstm_wgrad_f32.cu's.
 //
 // Function (the contract of ops/lstm.py:bidir_layer_sweep, as bilstm_bwd.cu):
 // block (row tile, direction d) walks the positions in the reverse of that

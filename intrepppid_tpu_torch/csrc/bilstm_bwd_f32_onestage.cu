@@ -7,7 +7,7 @@
 // sweeps do not take), the recurrent part of the TPU kernel
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (via _bwd_pallas)
 // at the resident widths past H = 64: layer 0 of a model at embedding 80.
-// Its weight-gradient products stay in bilstm_wgrad.cu.
+// Its weight-gradient products are bilstm_wgrad_f32.cu's.
 //
 // Function: that of bilstm_bwd_f32.cu (ops/lstm.py:bidir_layer_sweep):
 // block (row tile, direction d) walks the positions in the reverse of that

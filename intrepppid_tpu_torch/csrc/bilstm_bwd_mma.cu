@@ -1,13 +1,13 @@
 // Bidirectional LSTM layer backward sweep (BPTT), bf16 compute dtype, H <= 80:
 // the tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_bwd.cu (which keeps f32), the recurrent part of the
-// TPU kernels
+// Replaces, like bilstm_bwd_f32.cu (f32), the recurrent part of the TPU
+// kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _bwd_kernel_packed (via
 //     _bwd_pallas_packed) -- the train step's layer backward at 2H == 128,
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (via _bwd_pallas)
 //     at the other widths that fit.
-// Their weight-gradient products stay in bilstm_wgrad.cu.
+// Their weight-gradient products are bilstm_wgrad_mma.cu's.
 //
 // Function (the contract of ops/lstm.py:bidir_layer_sweep, as bilstm_bwd.cu):
 // block (row tile, direction d) walks the positions in the reverse of that
@@ -69,6 +69,13 @@
 // layer its padded shape: bwd_mma_plan takes these widths only at the
 // shapes bilstm_bwd.cu took there. At E = H = 72: 9 warps, K = 144 run as
 // 160, 125,824 B of shared memory.
+// At H = 16-64 the same padding takes every E (ops/lstm_cuda.py:
+// BWD_MMA_ANY_K_WIDTHS), where K % 32 is 16 and K = E + H was refused
+// before: the stacked layer of the bf16 model at embedding 16 (E = 32,
+// H = 16, K = 48 run as 64; its <16, 32> instance: 2 main warps and one dx
+// warp, 18,432 B of shared memory; layer 0, E = H = 16, has a <16, 16>
+// instance) and layer 0 at H = 16, E = 8 (K = 24, the run-time <0, 0>
+// build), both bilstm_bwd.cu's before.
 
 #include "bilstm_common.cuh"
 #include "bilstm_mma.cuh"
@@ -513,14 +520,15 @@ const char* bilstm_bwd_mma_error_string(int err) { return cudaGetErrorString((cu
 // its own 8-row tiles: `tiles` = G * ceil(B / G / 8), and dbias_part is
 // (tiles, 2, 4H) f32. H % 8 == 0, H <= kMaxH, E parts multiples of 8 (the
 // gate product runs E + H to the next multiple of 32 over zero columns).
-// Returns a cudaError_t (0 on success).
+// generic != 0 runs the run-time <0, 0> build whatever the shape (to time
+// an instance against it). Returns a cudaError_t (0 on success).
 int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* lengths,
                    const void* w_ih, const void* w_hh, const void* bias, const void* hs_f,
                    const void* hs_b, const void* cs_f, const void* cs_b, const void* dyf0,
                    const void* dyf1, const void* dyb0, const void* dyb1, int ny, const void* dhn,
                    const void* dcn, void* dxf0, void* dxf1, void* dxb0, void* dxb1, void* dgc,
                    void* dbias_part, int T_steps, int B, int H, int G, int tiles, int threads,
-                   int smem, void* stream) {
+                   int smem, int generic, void* stream) {
   if (H % 8 || H <= 0 || H > kMaxH || E0 % 8 || E1 % 8 || ny < 0 || ny > 2 ||
       threads > kMaxThreads || threads < 32 * (H / 8))
     return (int)cudaErrorInvalidValue;
@@ -546,14 +554,18 @@ int bilstm_bwd_mma(const void* x0, const void* x1, int E0, int E1, const void* l
   a.T = T_steps; a.B = B; a.H = H; a.G = G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int E = E0 + E1;
-  // the model's layers (E = H below, E = 2H stacked) at its two widths, and
-  // layer 0 of the two-layer models at embedding 80 and 72
+  if (generic) return launch<0, 0>(a, tiles, threads, smem, st);
+  // the model's layers (E = H below, E = 2H stacked) at its two widths,
+  // layer 0 of the two-layer models at embedding 80 and 72, and both layers
+  // of the bf16 model at embedding 16 (K = 32, and 48 run as 64)
   if (H == 80 && E == 80) return launch<80, 80>(a, tiles, threads, smem, st);
   if (H == 72 && E == 72) return launch<72, 72>(a, tiles, threads, smem, st);
   if (H == 64 && E == 64) return launch<64, 64>(a, tiles, threads, smem, st);
   if (H == 64 && E == 128) return launch<64, 128>(a, tiles, threads, smem, st);
   if (H == 32 && E == 32) return launch<32, 32>(a, tiles, threads, smem, st);
   if (H == 32 && E == 64) return launch<32, 64>(a, tiles, threads, smem, st);
+  if (H == 16 && E == 32) return launch<16, 32>(a, tiles, threads, smem, st);
+  if (H == 16 && E == 16) return launch<16, 16>(a, tiles, threads, smem, st);
   return launch<0, 0>(a, tiles, threads, smem, st);
 }
 

@@ -1,5 +1,5 @@
-// Helpers shared by the LSTM kernels (bilstm_fwd.cu, bilstm_bwd.cu,
-// bilstm_wgrad.cu, lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the
+// Helpers shared by the LSTM kernels (bilstm_bwd.cu,
+// lstm_recurrence_wgrad.cu, and, with bilstm_mma.cuh, the
 // tensor-core kernels, bilstm_bwd_lite_mma.cu and bilstm_fwd_wide_mma.cu
 // among them on the wide kernels' cluster launch and barriers):
 // compute-dtype conversions, 16-byte stream chunks widened to f32 in shared

@@ -1,8 +1,7 @@
 // Bidirectional LSTM layer forward, f32 compute dtype, H <= 80: the
 // tensor-core variant in three tf32 passes, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_fwd_mma.cu (bf16) and bilstm_fwd.cu (which keeps the
-// bf16 shapes neither tensor-core forward takes), the TPU kernels
+// Replaces, like bilstm_fwd_mma.cu (bf16), the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _fwd_kernel_packed (via
 //     _fwd_pallas_packed) -- the layer forward at 2H == 128: with_states
 //     False (eval variant: the serve path, infer from_csv) and True (train
@@ -11,7 +10,7 @@
 //     -- the same function at the other resident widths, layer 0 of the
 //     model at embedding 80 (E = H = 80) among them.
 //
-// Function (the contract of ops/lstm.py:bidir_layer, as bilstm_fwd.cu): for
+// Function (the contract of ops/lstm.py:bidir_layer): for
 // each direction d and row r, step s reads position pos = s (d = 0) or
 // T-1-s (d = 1) and computes gates = [x_parts](pos) @ W_ih[d]^T + bias[d] +
 // h @ W_hh[d, g]^T (gate order i, f, g, o; g the row's weight group), then
@@ -22,9 +21,9 @@
 //
 // What bounds it on an H100: per step and row 4H x (E + H) multiply-adds,
 // 393 GFLOP at serve's shape (800 rows, T = 1500, both layers). On the CUDA
-// cores (bilstm_fwd.cu, 67 TFLOP/s) that is ~5.9 ms of operations and it
-// takes ~21 ms on an H100 (chip_smoke.py, phase kernel), paced by
-// shared-memory weight reads and FMA issue. One tf32
+// cores (67 TFLOP/s) that is ~5.9 ms of operations, and the CUDA-core
+// kernel this one replaced took ~21 ms on an H100, paced by shared-memory
+// weight reads and FMA issue. One tf32
 // pass on the tensor cores keeps ~3 decimal digits, which would break the
 // serve path's 1e-4 agreement with the plain forward; three passes
 // (big.big + big.small + small.big, split_tf32 in bilstm_mma.cuh) keep
@@ -368,8 +367,11 @@ int bilstm_fwd_f32_stride_pad() { return kStridePad; }
 
 const char* bilstm_fwd_f32_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The compute dtype is float32. Operands as bilstm_layer_fwd (bilstm_fwd.cu)
-// without the dtype code and its row plan: x1 may be null (E1 = 0); cs_f /
+// The compute dtype is float32. Operands (ops/lstm_cuda.py:_tile_fwd_launch):
+// x0 (T, B, E0), x1 (T, B, E1), w_ih (2, 4H, E0 + E1) and
+// w_hh (2, G, 4H, H) in the compute dtype; lengths (B,) int32; bias (2, 4H)
+// f32; out: hs_f, hs_b and cs_f, cs_b (T, B, H) in the compute dtype, hn,
+// cn (2, B, H) f32. x1 may be null (E1 = 0); cs_f /
 // cs_b null selects the eval variant. `rows` (8 or 16) is the row tile;
 // each of the G weight groups (B / G rows) is cut into its own tiles:
 // `tiles` = G * ceil(B / G / rows); threads = 4H; smem the dynamic shared

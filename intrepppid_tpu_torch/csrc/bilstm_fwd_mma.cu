@@ -9,13 +9,13 @@
 //   intrepppid_tpu/ops/lstm_pallas_layer.py   _fwd_kernel (via _fwd_pallas,
 //     :376) -- the same function at the other resident widths, layer 0 of
 //     the two-layer models at embedding 72 and 80 among them.
-// bilstm_fwd.cu (CUDA cores) is reached by name only in bf16: this kernel
-// is instantiated at every bf16 resident shape a layer runs at.
+// It is instantiated at every bf16 resident shape a layer runs at (the
+// CUDA-core forward that took the others is deleted).
 // f32 at these widths goes to bilstm_fwd_f32.cu, in three tf32 passes: one
 // pass, with tf32's 10-bit mantissa, breaks the serve path's 1e-4
 // agreement with the plain forward.
 //
-// Function (the contract of ops/lstm.py:bidir_layer, as bilstm_fwd.cu): for
+// Function (the contract of ops/lstm.py:bidir_layer): for
 // each direction d and row r, step s reads position pos = s (d = 0) or
 // T-1-s (d = 1) and computes gates = [x_parts](pos) @ W_ih[d]^T + bias[d] +
 // bf16(h) @ W_hh[d, g]^T (gate order i, f, g, o; g the row's weight group),
@@ -358,8 +358,11 @@ int bilstm_fwd_mma_tail_pad() { return kTailPad; }
 
 const char* bilstm_fwd_mma_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The compute dtype is bfloat16. Operands as bilstm_layer_fwd (bilstm_fwd.cu)
-// without the dtype code and the row plan: x1 may be null (E1 = 0); cs_f /
+// The compute dtype is bfloat16. Operands (ops/lstm_cuda.py:_tile_fwd_launch):
+// x0 (T, B, E0), x1 (T, B, E1), w_ih (2, 4H, E0 + E1) and
+// w_hh (2, G, 4H, H) in the compute dtype; lengths (B,) int32; bias (2, 4H)
+// f32; out: hs_f, hs_b and cs_f, cs_b (T, B, H) in the compute dtype, hn,
+// cn (2, B, H) f32. x1 may be null (E1 = 0); cs_f /
 // cs_b null selects the eval variant. Each of the G weight groups (B / G
 // rows) is cut into its own 8-row tiles: `tiles` = G * ceil(B / G / 8);
 // threads = 4H (at most kMaxThreads). (H, E0 + E1) is one of the

@@ -2,8 +2,7 @@
 // tensor-core variant in three tf32 passes, hand-written for Hopper (sm_90a).
 //
 // Replaces, like bilstm_wgrad_mma.cu (bf16), the weight-gradient products
-// inside the TPU kernels (bilstm_wgrad.cu, on the CUDA cores, is reached by
-// name only)
+// inside the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _bwd_kernel_packed (the dwih /
 //     dw accumulations at :719-735, reduced by reduce_packed_grads at :956),
 //   intrepppid_tpu/ops/lstm_pallas_layer.py  _bwd_kernel (:436; dW_hh of the

@@ -1,7 +1,7 @@
 // Bidirectional LSTM layer weight gradients, bf16 compute dtype: the
 // tensor-core variant, hand-written for Hopper (sm_90a).
 //
-// Replaces, like bilstm_wgrad.cu (which keeps f32 at H % 32 != 0), the
+// Replaces, like bilstm_wgrad_f32.cu (f32), the
 // weight-gradient products inside the TPU kernels
 //   intrepppid_tpu/ops/lstm_pallas_packed.py  _bwd_kernel_packed (the dwih /
 //     dw accumulations at :719-735, reduced by reduce_packed_grads at :956),

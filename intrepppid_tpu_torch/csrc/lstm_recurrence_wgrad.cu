@@ -24,7 +24,7 @@
 // on CUDA cores in f32 against reading hs and dxg once (20 H bytes):
 // operations from H = 64 up, bytes at H = 32.
 //
-// Design: the split-K product of bilstm_wgrad.cu. Block (split, output
+// Design: a split-K product. Block (split, output
 // tile, d * G + g) owns a 64 x 64 tile of dw[d, g] and the rows (s, b) of
 // its time split and group; 256 threads each keep a 4 x 4 register tile.
 // Chunks of 32 rows of dxg and h_prev are rounded and staged in shared
@@ -32,7 +32,9 @@
 // tile (no atomics); the wrapper sums the partials over the splits in a
 // fixed order, so the result does not depend on the order blocks run, and
 // rounds to w's dtype last.
-// Not yet done: tensor cores (mma / wgmma) and multi-stage copies.
+// The tensor-core kernels took every width over (lstm_recurrence_wgrad_mma.cu
+// in bf16, lstm_recurrence_wgrad_f32.cu in f32, three tf32 passes); this one
+// is reached by name only, to time it beside them.
 
 #include "bilstm_common.cuh"
 

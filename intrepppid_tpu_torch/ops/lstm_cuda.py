@@ -23,22 +23,22 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     every resident shape a layer runs at, ``FWD_MMA_SHAPES``: the products
     on the tensor cores), ``bilstm_layer_fwd_f32`` and
     ``bilstm_layer_fwd_train_f32`` launch ``csrc/bilstm_fwd_f32.cu`` (f32,
-    H <= 80: three tf32 passes a product on the tensor cores), and the two
-    wrappers themselves launch ``csrc/bilstm_fwd.cu`` for the rest (CUDA
-    cores: shapes no layer runs at, e.g. bf16 at H = 80, E = 72 and f32 at
-    H = 72; by name in bf16). Plain twin of all three:
-    ``ops/lstm.py:bidir_layer``.
+    H <= 80: three tf32 passes a product on the tensor cores); the two
+    wrappers themselves only dispatch, and raise for a shape neither
+    kernel takes (e.g. bf16 at H = 80, E = 72 and f32 at H = 72, shapes no
+    layer runs at). Plain twin of both: ``ops/lstm.py:bidir_layer``.
   * ``bilstm_bwd`` is the reverse-time sweep of ``lstm_pallas_packed.py:750
     _bwd_pallas_packed`` and of ``lstm_pallas_layer.py:603 _bwd_pallas``.
     Four kernels do it, picked by shape and dtype (``sweep_kernel``):
     ``bilstm_bwd_mma`` launches ``csrc/bilstm_bwd_mma.cu`` (bf16, H <= 64
-    and E = H = 80: the products on the tensor cores), ``bilstm_bwd_f32``
+    at any E, H % 16 == 8 and E = H = 80: the products on the tensor
+    cores), ``bilstm_bwd_f32``
     launches ``csrc/bilstm_bwd_f32.cu`` (f32, H <= 64: three tf32 passes a product on
     the tensor cores), ``bilstm_bwd_f32_onestage`` launches
     ``csrc/bilstm_bwd_f32_onestage.cu`` (the same kernel with one [x ; h]
     stage, f32 at E = H = 80), and ``bilstm_bwd`` itself launches
-    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores: the bf16 shapes past
-    H = 64 but E = H = 80). Plain twin of all four:
+    ``csrc/bilstm_bwd.cu`` for the rest (CUDA cores: bf16 shapes no layer
+    runs at, e.g. H = 80 at E = 40). Plain twin of all four:
     ``ops/lstm.py:bidir_layer_sweep``.
 
 * **wide** -- the rest (the scaled configuration's H = 256, and H = 128):
@@ -89,14 +89,13 @@ units has a route, every width the JAX kernels take (H <= 286) among them:
     ``ops/lstm.py:bidir_layer_sweep_lite``.
 
 * both routes: ``bilstm_wgrad``, the weight-gradient products, by one of
-  three kernels (``wgrad_kernel``): ``bilstm_wgrad_mma`` launches
+  two kernels (``wgrad_kernel``), the wrapper itself only dispatching:
+  ``bilstm_wgrad_mma`` launches
   ``csrc/bilstm_wgrad_mma.cu`` (bf16, H % 8 == 0: a split-K GEMM on the
   tensor cores, its last 128-row gate tile masked where H % 32 != 0),
   ``bilstm_wgrad_f32`` launches ``csrc/bilstm_wgrad_f32.cu`` (f32,
   H % 16 == 0: the same GEMM in three tf32 passes, 64-row gate tiles at
-  H % 32 == 16), ``bilstm_wgrad`` itself launches ``csrc/bilstm_wgrad.cu``
-  for the rest (CUDA cores: no layer's shape; by name in f32). Plain twin
-  of all three: ``ops/lstm.py:bidir_layer_wgrad``. On the wide route in
+  H % 32 == 16). Plain twin of both: ``ops/lstm.py:bidir_layer_wgrad``. On the wide route in
   bf16 past 96 units (``wgrad_split``), ``layer_bwd`` splits the products
   as the JAX lite mode does
   (``lstm_pallas_layer.py:1091-1108``: ``dW_ih`` an XLA GEMM, ``dW_hh`` in
@@ -109,7 +108,7 @@ Beside the layer kernels, the time-major recurrence op
 (``ops/lstm_recurrence.py``, the counterpart of
 ``intrepppid_tpu/ops/lstm_pallas.py``; a width they do not take runs at
 ``recurrence_width``, padded, up to ``REC_MAX_H`` on the card) has kernels
-of its own: one on the CUDA cores (the f32 wgrad), and the tensor-core ones:
+of its own, all on the tensor cores (the CUDA-core wgrad by name only):
 
 * ``lstm_recurrence_fwd`` is the forward of ``lstm_pallas.py:145
   _fwd_pallas``, by one of six tensor-core kernels (``recurrence_fwd_kernel``):
@@ -153,9 +152,11 @@ of its own: one on the CUDA cores (the f32 wgrad), and the tensor-core ones:
 * ``lstm_recurrence_wgrad`` is that kernel's ``dW`` sums, by one of two
   kernels (``recurrence_wgrad_kernel``): ``lstm_recurrence_wgrad_mma``
   launches ``csrc/lstm_recurrence_wgrad_mma.cu`` (bf16: a split-K GEMM on
-  the tensor cores), ``lstm_recurrence_wgrad`` itself launches
-  ``csrc/lstm_recurrence_wgrad.cu`` (f32, CUDA cores). Plain twin of both:
-  ``recurrence_wgrad``.
+  the tensor cores), ``lstm_recurrence_wgrad_f32`` launches
+  ``csrc/lstm_recurrence_wgrad_f32.cu`` (f32: the same GEMM in three tf32
+  passes); ``lstm_recurrence_wgrad`` itself launches
+  ``csrc/lstm_recurrence_wgrad.cu`` (CUDA cores) by name only. Plain twin
+  of all three: ``recurrence_wgrad``.
 
 These refuse operands that require grad under grad mode for CPU tensors
 too: only ``FusedLSTMRecurrence`` calls them.
@@ -170,11 +171,12 @@ each group with length-0 rows and slice them off (the JAX package does the
 same, ``ops/lstm.py:241-260``); the wide kernels cut each group into its
 own tiles, as do the tensor-core kernels. Each wrapper's ``.launches``
 counts the launches of its own kernel: a sweep that ``bilstm_bwd``
-hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so do
-the forwards (the wide ones too), ``bilstm_wgrad`` and
-``lstm_recurrence_wgrad``; ``bilstm_gates``, ``bilstm_bwd_lite``,
+hands to ``bilstm_bwd_mma`` or ``bilstm_bwd_f32`` counts there, and so does
+``lstm_recurrence_wgrad``; ``bilstm_layer_fwd``, ``bilstm_layer_fwd_train``,
+``bilstm_wgrad``, ``bilstm_gates``, ``bilstm_bwd_lite``,
 ``lstm_recurrence_fwd`` and ``lstm_recurrence_bwd`` only dispatch, and the
-kernel's own wrapper counts (the last two keep a count that stays 0);
+kernel's own wrapper counts (all but ``bilstm_gates`` and
+``bilstm_bwd_lite`` keep a count that stays 0: their kernels are gone);
 ``bilstm_wgrad_ih`` counts
 its calls, each a layer's ``dW_ih`` products.
 """
@@ -211,11 +213,12 @@ bilstm_layer_fwd_plain = bidir_layer
 # shared memory one block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
 # the kernels' compile-time constants, checked against each built library
-# when it loads: bilstm_fwd.cu (kMaxRows, kMaxChunks, kMaxThreads),
-# bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
-# bilstm_wgrad.cu (kTile), bilstm_common.cuh (kWideCluster, kRecMaxH),
+# when it loads: bilstm_bwd.cu (kRows, kMaxChunks, kMaxThreads, kMaxRX, kPad),
+# bilstm_common.cuh (kWideCluster, kRecMaxH),
 # lstm_recurrence_bwd.cu (kPad), lstm_recurrence_wgrad.cu (kTile),
 # lstm_recurrence_wgrad_mma.cu (kTileM, kTileN, kTileK, kSmem),
+# lstm_recurrence_wgrad_f32.cu (kTileM, kTileK, each tile's blocks an SM and
+# shared memory),
 # bilstm_mma.cuh (kMmaTile), bilstm_bwd_mma.cu (kStages, kMaxChunks,
 # kMaxThreads, kMaxH = BWD_MMA_MAX_H, kPad), bilstm_bwd_f32.cu and
 # bilstm_bwd_f32_onestage.cu (kMmaTile, kMaxChunks, kMaxThreads, kMaxH,
@@ -245,7 +248,7 @@ SMEM_LIMIT = 232448
 # tiles and instances), lstm_recurrence_{bwd,fwd}_mid_mma.cu (kThreads, kPad,
 # their widths, row tiles and instances; the forward's kXPad, kStages,
 # kStagesAt8, kMaskBytes)
-ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS = 4, 4, 256
+MAX_THREADS = 256
 BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, BWD_MAX_DX_ROWS, BWD_PAD = 2, 4, 8, 4
 WGRAD_TILE = 64
 # the wide kernels' clusters; the widest H a layer route takes (past it the
@@ -267,6 +270,11 @@ BWD_MMA_MAX_H = 80
 # shape): its gate product runs E + H to the next multiple of 32 over zero
 # columns of the resident weights and of the [x ; h] tile
 BWD_MMA_ODD_WIDTHS = (8, 24, 40, 56, 72)
+# the widths at H % 16 == 0 the bf16 tensor-core sweep takes whatever
+# (E + H) % 32 (the same zero columns): the stacked layer of the bf16 model
+# at embedding 16 (E = 32, K = 48) and layer 0 of 1-16 units at E = 8 left
+# bilstm_bwd.cu for it; E = H = 80 keeps (E + H) % 32 == 0
+BWD_MMA_ANY_K_WIDTHS = (16, 32, 48, 64)
 REC_MMA_MAX_CHUNKS, REC_MMA_F32_PAD = 4, 4
 # the op's bf16 tensor-core forward at REC_MMA_WIDTHS
 # (lstm_recurrence_fwd_mma.cu): its cp.async stages of the xg and mask tiles
@@ -283,7 +291,7 @@ BWD_F32_ONESTAGE_MAX_THREADS, BWD_F32_ONESTAGE_MAX_H = 320, 80
 # MMA_MAX_H layer 0 of the two-layer models at embedding 72 and 80, E = H;
 # the shapes at H % 16 == 8 and H = 48 at E = 80 / 112 that the layers of
 # 1-56 units run at, whose K = E + H % 16 == 8 ends in a k8 step; all of
-# them shapes where bilstm_fwd.cu took them), x chunks a thread copies per
+# them shapes the deleted bilstm_fwd.cu took), x chunks a thread copies per
 # step, its widest block (the <80, 80> instance: one warp per 8 units), and
 # the padding of its [x ; h] rows where K % 16 == 8 (MMA_PAD where K % 16
 # == 0: either keeps the row stride an odd number of 16 bytes)
@@ -309,6 +317,18 @@ REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N, REC_WGRAD_MMA_TILE_K = 64, 128, 64
 REC_WGRAD_MMA_SMEM = 2 * REC_WGRAD_MMA_TILE_K * (
     REC_WGRAD_MMA_TILE_M + MMA_PAD + REC_WGRAD_MMA_TILE_N + MMA_PAD) * 2
 REC_WGRAD_MMA_TARGET_BLOCKS = 2 * 132
+# the recurrence op's f32 tensor-core wgrad (three tf32 passes): block tile
+# rows (h columns), rows per K-tile, the block tiles' gate columns it is
+# built for with the blocks an SM each holds (64 x 128: one, its warps
+# carry 128 accumulators; 64 x 64: two), cp.async stages at most, and the
+# tile the dispatch takes at every width (64 x 64: at the train shape, one
+# layer of 400 rows in 5 groups, T = 1500, it took 0.87 / 3.34 / 18.65 ms
+# at H = 64 / 128 / 288 against 0.99 / 3.85 / 21.69 for 64 x 128, each in
+# turns with lstm_recurrence_wgrad.cu on an H100, PERF.md)
+REC_WGRAD_F32_TILE_M, REC_WGRAD_F32_TILE_K = 64, 32
+REC_WGRAD_F32_BLOCKS = {128: 1, 64: 2}
+REC_WGRAD_F32_STAGES = 4
+REC_WGRAD_F32_TILE_N = 64
 # the tensor-core input gates: block tile (rows x gate columns), input
 # columns a stage, cp.async stages, and its dynamic shared memory
 GATES_MMA_TILE_M, GATES_MMA_TILE_N, GATES_MMA_TILE_K, GATES_MMA_STAGES = 128, 128, 32, 4
@@ -482,16 +502,14 @@ PAD_STEP, PART_STEP = 16, 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bilstm_fwd": ("bilstm_layer_fwd", [_I, _P, _P, _I, _I] + [_P] * 10 + [_I] * 7 + [_P]),
     "bilstm_bwd": ("bilstm_bwd", [_I, _P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                    + [_I] * 6 + [_P]),
     "bilstm_bwd_mma": ("bilstm_bwd_mma", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
-                       + [_I] * 7 + [_P]),
+                       + [_I] * 8 + [_P]),
     "bilstm_bwd_f32": ("bilstm_bwd_f32", [_P, _P, _I, _I] + [_P] * 12 + [_I] + [_P] * 8
                        + [_I] * 7 + [_P]),
     "bilstm_bwd_f32_onestage": ("bilstm_bwd_f32_onestage", [_P, _P, _I, _I] + [_P] * 12 + [_I]
                                 + [_P] * 8 + [_I] * 7 + [_P]),
-    "bilstm_wgrad": ("bilstm_wgrad", [_I] + [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_fwd_mma": ("bilstm_fwd_mma", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 6 + [_P]),
     "bilstm_wgrad_mma": ("bilstm_wgrad_mma", [_P] * 3 + [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
     "bilstm_gates_mma": ("bilstm_gates_mma", [_P, _P, _I, _I] + [_P] * 3 + [_I] * 3 + [_P]),
@@ -501,6 +519,7 @@ _SIGNATURES = {
     "lstm_recurrence_fwd_mma": ("lstm_recurrence_fwd_mma", [_P] * 7 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad": ("lstm_recurrence_wgrad", [_I] + [_P] * 3 + [_I] * 6 + [_P]),
     "lstm_recurrence_wgrad_mma": ("lstm_recurrence_wgrad_mma", [_P] * 3 + [_I] * 6 + [_P]),
+    "lstm_recurrence_wgrad_f32": ("lstm_recurrence_wgrad_f32", [_P] * 3 + [_I] * 7 + [_P]),
     "bilstm_fwd_f32": ("bilstm_fwd_f32", [_P, _P, _I, _I] + [_P] * 10 + [_I] * 8 + [_P]),
     "lstm_recurrence_bwd_f32": ("lstm_recurrence_bwd_f32", [_P] * 9 + [_I] * 7 + [_P]),
     "bilstm_fwd_wide_mma": ("bilstm_fwd_wide_mma", [_I] + [_P] * 9 + [_I] * 6 + [_P, _P]),
@@ -536,8 +555,6 @@ _SIGNATURES = {
                                     [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P, _P]),
 }
 _CONSTANTS = {
-    "bilstm_fwd": (("bilstm_rows_per_thread", "bilstm_max_chunks", "bilstm_max_threads"),
-                   (ROWS_PER_THREAD, MAX_CHUNKS, MAX_THREADS)),
     "bilstm_bwd": (("bilstm_bwd_rows_per_thread", "bilstm_bwd_max_chunks",
                     "bilstm_bwd_max_threads", "bilstm_bwd_max_dx_rows", "bilstm_bwd_pad"),
                    (BWD_ROWS_PER_THREAD, BWD_MAX_CHUNKS, MAX_THREADS, BWD_MAX_DX_ROWS, BWD_PAD)),
@@ -560,7 +577,6 @@ _CONSTANTS = {
                                 (MMA_TILE, BWD_F32_MAX_CHUNKS, BWD_F32_ONESTAGE_MAX_THREADS,
                                  BWD_F32_ONESTAGE_MAX_H, BWD_F32_STRIDE_ALIGN,
                                  BWD_F32_STRIDE_PAD)),
-    "bilstm_wgrad": (("bilstm_wgrad_tile",), (WGRAD_TILE,)),
     "bilstm_fwd_mma": (("bilstm_fwd_mma_tile", "bilstm_fwd_mma_stages",
                         "bilstm_fwd_mma_max_chunks", "bilstm_fwd_mma_max_threads",
                         "bilstm_fwd_mma_pad", "bilstm_fwd_mma_tail_pad"),
@@ -597,6 +613,11 @@ _CONSTANTS = {
                                    "lstm_recurrence_wgrad_mma_smem"),
                                   (REC_WGRAD_MMA_TILE_M, REC_WGRAD_MMA_TILE_N,
                                    REC_WGRAD_MMA_TILE_K, REC_WGRAD_MMA_SMEM)),
+    "lstm_recurrence_wgrad_f32": (tuple(f"lstm_recurrence_wgrad_f32_{c}" for c in (
+        "tile_m", "tile_k", "blocks_128", "blocks_64", "smem_128", "smem_64")),
+        (REC_WGRAD_F32_TILE_M, REC_WGRAD_F32_TILE_K, REC_WGRAD_F32_BLOCKS[128],
+         REC_WGRAD_F32_BLOCKS[64], *(REC_WGRAD_F32_STAGES * REC_WGRAD_F32_TILE_K
+                                     * (REC_WGRAD_F32_TILE_M + n + 16) * 4 for n in (128, 64)))),
     "bilstm_fwd_f32": (("bilstm_fwd_f32_tile", "bilstm_fwd_f32_max_chunks",
                         "bilstm_fwd_f32_max_threads", "bilstm_fwd_f32_max_h",
                         "bilstm_fwd_f32_stride_align", "bilstm_fwd_f32_stride_pad"),
@@ -697,8 +718,7 @@ _CONSTANTS = {
          *(sum(1 << (h // 32) for h in REC_FWD_MID_F32_INSTANCES[k])
            for k in ((8, True), (8, False), (4, True))))),
 }
-_ERROR_STRING = {name: f"{'bilstm' if name == 'bilstm_fwd' else name}_error_string"
-                 for name in _SIGNATURES}
+_ERROR_STRING = {name: f"{name}_error_string" for name in _SIGNATURES}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -745,37 +765,6 @@ def _check_parts(E_parts: Sequence[int], vec: int, dtype, what: str) -> None:
         )
 
 
-def launch_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
-                rows_per_thread: int = ROWS_PER_THREAD) -> Tuple[int, int, int]:
-    """``(threads, rows_per_block, smem_bytes)`` of the forward kernel for a
-    layer, or ValueError for a shape it does not take."""
-    size, vec = _vec(dtype)
-    if H % 4 or H > MAX_THREADS:
-        raise ValueError(f"bilstm kernel needs H % 4 == 0 and H <= {MAX_THREADS}, got H={H}")
-    _check_parts(E_parts, vec, dtype, "bilstm kernel")
-    E = sum(E_parts)
-    groups = MAX_THREADS // H
-    threads, rows = H * groups, groups * rows_per_thread
-    smem = _a16(E * 4 * H * size) + _a16(H * 4 * H * size) + 2 * rows * (E + H) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"bilstm kernel: E={E}, H={H} in {dtype} needs {smem} bytes of "
-            f"shared memory, more than the {SMEM_LIMIT} a block may use"
-        )
-    if rows * E // vec > MAX_CHUNKS * threads:
-        raise ValueError(f"bilstm kernel: input width E={E} too wide for H={H}")
-    return threads, rows, smem
-
-
-def fwd_rows_per_thread(B: int, H: int, sms: int) -> int:
-    """Rows each forward thread owns: 2 when the halved row tiles still fit
-    the card's SMs in one wave (one block per SM: the resident weights take
-    most of its shared memory), which doubles the SMs a small batch fills;
-    otherwise 4, which reuses each weight load over more rows."""
-    tile = (MAX_THREADS // H) * 2
-    return 2 if 2 * -(-B // tile) <= sms else ROWS_PER_THREAD
-
-
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -816,22 +805,23 @@ def bwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype,
     """``(threads, smem_bytes)`` of the tensor-core sweep
     (``csrc/bilstm_bwd_mma.cu``) for a layer with ``ny`` dy streams per
     direction, or ValueError for a dtype or shape it does not take. It takes
-    bfloat16 with input parts that are multiples of 8 wide: H in {16, 32,
-    48, 64} or E = H = ``BWD_MMA_MAX_H`` (80) with ``(E + H) % 32 == 0`` (its
-    products step K by 32); and H in ``BWD_MMA_ODD_WIDTHS`` (8, 24, 40, 56,
-    72: H % 16 == 8) at the shapes ``bwd_launch_plan`` takes there, where
-    the gate product runs K = E + H to the next multiple of 32 over zero
-    columns inside the kernel."""
+    bfloat16 with input parts that are multiples of 8 wide: H in
+    ``BWD_MMA_ANY_K_WIDTHS`` (16, 32, 48, 64) at any such E, E = H =
+    ``BWD_MMA_MAX_H`` (80), and H in ``BWD_MMA_ODD_WIDTHS`` (8, 24, 40, 56,
+    72: H % 16 == 8) at the shapes ``bwd_launch_plan`` takes there. Its
+    products step K by 32: where K = E + H is not a multiple of 32 the gate
+    product runs it to the next one over zero columns inside the kernel
+    (the dh product's K = 4H always is)."""
     E = sum(E_parts)
     odd = H in BWD_MMA_ODD_WIDTHS
     if (dtype != torch.bfloat16 or any(e <= 0 or e % 8 for e in E_parts)
-            or not (odd or (H % 16 == 0 and (E + H) % 32 == 0
-                            and (16 <= H <= MMA_MAX_H or H == E == BWD_MMA_MAX_H)))):
+            or not (odd or H in BWD_MMA_ANY_K_WIDTHS
+                    or (H % 16 == 0 and (E + H) % 32 == 0
+                        and (16 <= H <= MMA_MAX_H or H == E == BWD_MMA_MAX_H)))):
         raise ValueError(
-            f"bilstm_bwd_mma kernel takes bfloat16 with H in {{16, 32, 48, {MMA_MAX_H}}} or "
-            f"E = H = {BWD_MMA_MAX_H} and (E + H) % 32 == 0, or H in "
-            f"{set(BWD_MMA_ODD_WIDTHS)}, and input parts that are positive multiples of 8, got "
-            f"{dtype}, H={H}, E_parts={list(E_parts)}")
+            f"bilstm_bwd_mma kernel takes bfloat16 with H in {set(BWD_MMA_ANY_K_WIDTHS)}, "
+            f"E = H = {BWD_MMA_MAX_H} or H in {set(BWD_MMA_ODD_WIDTHS)}, and input parts that "
+            f"are positive multiples of 8, got {dtype}, H={H}, E_parts={list(E_parts)}")
     if odd:
         try:
             bwd_launch_plan(E_parts, H, dtype)
@@ -883,8 +873,8 @@ def bwd_f32_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
 
 def _first_fitting(plans, E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The name of the first ``(name, plan)`` whose plan takes the shape;
-    ValueError naming every refusal otherwise, the last plan's (the CUDA-core
-    kernel's) first."""
+    ValueError naming every refusal otherwise, the last plan's (in the
+    sweep's list the CUDA-core kernel's) first."""
     refusals = []
     for name, plan in plans:
         try:
@@ -926,12 +916,13 @@ def bwd_f32_onestage_plan(E_parts: Sequence[int], H: int,
 def sweep_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel the resident route's sweep takes for a layer, by shape and
     dtype alone, the first whose plan fits: ``"bilstm_bwd_mma"``
-    (``bwd_mma_plan``: bf16, H <= 64, E = H = 80 and, at H % 16 == 8, the
-    shapes ``bilstm_bwd.cu`` took there), ``"bilstm_bwd_f32"``
-    (``bwd_f32_plan``: f32, H <= 64), ``"bilstm_bwd_f32_onestage"``
-    (``bwd_f32_onestage_plan``: f32 past bilstm_bwd_f32.cu's shared memory,
-    E = H = 80), ``"bilstm_bwd"`` (``bwd_launch_plan``: the CUDA cores, the
-    bf16 shapes the tensor-core sweep does not take); ValueError naming the
+    (``bwd_mma_plan``: bf16, H <= 64 at any E, E = H = 80 and, at
+    H % 16 == 8, the shapes ``bilstm_bwd.cu`` took there),
+    ``"bilstm_bwd_f32"`` (``bwd_f32_plan``: f32, H <= 64),
+    ``"bilstm_bwd_f32_onestage"`` (``bwd_f32_onestage_plan``: f32 past
+    bilstm_bwd_f32.cu's shared memory, E = H = 80), ``"bilstm_bwd"``
+    (``bwd_launch_plan``: the CUDA cores, the bf16 shapes the tensor-core
+    sweep does not take, none a layer of the width grid runs at); ValueError naming the
     four refusals otherwise. A tensor-core plan takes a shape whether or not
     the CUDA-core one does."""
     return _first_fitting(
@@ -952,9 +943,8 @@ def fwd_mma_plan(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> Tuple[in
     not take. It takes bfloat16 at the (H, E) it is instantiated for
     (``FWD_MMA_SHAPES``: H in {16, 32, 48, 64}, E = H or 2H, E = H = 72 or
     80, and the shapes at H % 16 == 8 and H = 48 at E = 80 / 112 whose
-    K = E + H ends in a k8 step; shapes ``launch_plan`` (``bilstm_fwd.cu``)
-    takes too, so no layer changes its route or padded shape) in 1 or 2
-    input parts that are multiples of 8 wide. One warp per 8 hidden units
+    K = E + H ends in a k8 step: every bf16 resident shape a layer runs at)
+    in 1 or 2 input parts that are multiples of 8 wide. One warp per 8 hidden units
     (at 80, ``FWD_MMA_MAX_THREADS``); the shared memory is the three-stage
     ring of 8-row [x ; h] tiles, each row padded by ``fwd_mma_pad``."""
     E = sum(E_parts)
@@ -1028,24 +1018,11 @@ def fwd_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     layer, by shape and dtype alone, the first whose plan fits:
     ``"bilstm_fwd_mma"`` (``fwd_mma_plan``: bf16 at ``FWD_MMA_SHAPES``,
     every resident shape a bf16 layer runs at), ``"bilstm_fwd_f32"``
-    (``fwd_f32_plan``: f32, H % 16 == 0 up to 80), ``"bilstm_fwd"``
-    (``launch_plan``: the CUDA cores, the shapes the tensor-core forwards do
-    not take, such as bf16 at H = 80, E = 72 and f32 at H = 72, none a layer
-    runs at); ValueError naming the three
-    refusals otherwise. A tensor-core plan takes a shape whether or not the
-    CUDA-core one does."""
+    (``fwd_f32_plan``: f32, H % 16 == 0 up to 80); ValueError naming both
+    refusals otherwise (such as bf16 at H = 80, E = 72 and f32 at H = 72,
+    shapes no layer runs at)."""
     return _first_fitting(
-        (("bilstm_fwd_mma", fwd_mma_plan), ("bilstm_fwd_f32", fwd_f32_plan),
-         ("bilstm_fwd", launch_plan)), E_parts, H, dtype)
-
-
-def wgrad_check(E_parts: Sequence[int], H: int) -> None:
-    """ValueError for a shape the weight-gradient kernel does not take."""
-    if (4 * H) % WGRAD_TILE or any(w <= 0 or w % 8 for w in (*E_parts, H)):
-        raise ValueError(
-            f"bilstm_wgrad kernel needs 4H % {WGRAD_TILE} == 0 and every width "
-            f"% 8 == 0, got E_parts={list(E_parts)}, H={H}"
-        )
+        (("bilstm_fwd_mma", fwd_mma_plan), ("bilstm_fwd_f32", fwd_f32_plan)), E_parts, H, dtype)
 
 
 def _tensor_core_wgrad_check(name, takes, unit, E_parts, H, dtype, parts=(1, 2)) -> None:
@@ -1114,23 +1091,16 @@ def wgrad_kernel(E_parts: Sequence[int], H: int, dtype: torch.dtype) -> str:
     """The kernel a layer's weight gradients take, by shape and dtype alone:
     ``"bilstm_wgrad_mma"`` where ``wgrad_mma_check`` passes (bf16,
     H % 8 == 0), ``"bilstm_wgrad_f32"`` where ``wgrad_f32_check`` passes
-    (f32, H % 16 == 0), else ``"bilstm_wgrad"`` where ``wgrad_check``
-    passes (the shapes the tensor-core kernels do not take: no f32 layer,
-    since ``wgrad_check`` too needs 4H % 64 == 0); ValueError naming the
-    three refusals otherwise."""
+    (f32, H % 16 == 0); ValueError naming both refusals otherwise."""
     try:
         wgrad_mma_check(E_parts, H, dtype)
         return "bilstm_wgrad_mma"
     except ValueError as mma:
         try:
             wgrad_f32_check(E_parts, H, dtype)
-            return "bilstm_wgrad_f32"
         except ValueError as f32:
-            try:
-                wgrad_check(E_parts, H)
-            except ValueError as cores:
-                raise ValueError(f"{cores}; {mma}; {f32}") from None
-    return "bilstm_wgrad"
+            raise ValueError(f"{mma}; {f32}") from None
+    return "bilstm_wgrad_f32"
 
 
 def wgrad_split(route: str, H: int, dtype: torch.dtype) -> bool:
@@ -1715,63 +1685,6 @@ def _tile_pad(B: int, G: int, rows: int) -> int:
     return -(B // G) % rows
 
 
-def _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, with_states):
-    if compute_dtype not in _DTYPE_CODES:
-        raise ValueError(f"bilstm kernel takes float32 or bfloat16, got {compute_dtype}")
-    if len(x_parts) not in (1, 2):
-        raise ValueError(f"bilstm kernel takes 1 or 2 input parts, got {len(x_parts)}")
-    _no_graph(*x_parts, w_ih, w_hh, bias)
-    dev = x_parts[0].device
-    T, B = x_parts[0].shape[:2]
-    H = w_hh.shape[-1]
-    w_hh = grouped_w_hh(w_hh)
-    G = w_hh.shape[1]
-    for k, p in enumerate(x_parts):
-        _check(f"x_parts[{k}]", p, (T, B, p.shape[-1]), compute_dtype, dev)
-    E_parts = [p.shape[-1] for p in x_parts]
-    _check("w_ih", w_ih, (2, 4 * H, sum(E_parts)), compute_dtype, dev)
-    _check("w_hh", w_hh, (2, G, 4 * H, H), compute_dtype, dev)
-    _check("bias", bias, (2, 4 * H), torch.float32, dev)
-    _check("lengths", lengths, (B,), torch.int32, dev)
-    if B % G:
-        raise ValueError(f"bilstm kernel: batch {B} is not a multiple of {G} weight groups")
-
-    rpt = fwd_rows_per_thread(B, H, _sm_count(dev))
-    threads, rows, smem = launch_plan(E_parts, H, compute_dtype, rpt)
-    pad = _tile_pad(B, G, rows)
-    if pad:
-        x_parts = tuple(_group_pad(p, 1, G, pad) for p in x_parts)
-        lengths = _group_pad(lengths, 0, G, pad)
-    Bp = x_parts[0].shape[1]
-    lib = _kernels("bilstm_fwd")
-    hs_f = torch.empty((T, Bp, H), dtype=compute_dtype, device=dev)
-    hs_b = torch.empty_like(hs_f)
-    cs_f = torch.empty_like(hs_f) if with_states else None
-    cs_b = torch.empty_like(hs_f) if with_states else None
-    hn = torch.empty((2, Bp, H), dtype=torch.float32, device=dev)
-    cn = torch.empty_like(hn)
-    outs = (hs_f, hs_b, hn, cn) + ((cs_f, cs_b) if with_states else ())
-    if B == 0:
-        return outs
-    x1 = x_parts[1] if len(x_parts) == 2 else None
-    with torch.cuda.device(dev):
-        err = lib.bilstm_layer_fwd(
-            _DTYPE_CODES[compute_dtype],
-            x_parts[0].data_ptr(), x1.data_ptr() if x1 is not None else None,
-            E_parts[0], E_parts[1] if x1 is not None else 0,
-            lengths.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(),
-            hs_f.data_ptr(), hs_b.data_ptr(),
-            cs_f.data_ptr() if with_states else None, cs_b.data_ptr() if with_states else None,
-            hn.data_ptr(), cn.data_ptr(),
-            T, Bp, H, G, rpt, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on_error("bilstm_fwd", err)
-    if pad:
-        Bg = B // G
-        outs = tuple(_group_unpad(o, 1, G, Bg) for o in outs)
-    return outs
-
-
 def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
                      with_states):
     """Launch the tensor-core forward ``csrc/<name>.cu`` (``bilstm_fwd_mma``
@@ -1824,19 +1737,6 @@ def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_
     return outs
 
 
-def _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel: Optional[str]) -> str:
-    if kernel not in (None, "bilstm_fwd", "bilstm_fwd_mma", "bilstm_fwd_f32"):
-        raise ValueError(f"bilstm_layer_fwd: no forward kernel named {kernel!r}")
-    E_parts, H = [p.shape[-1] for p in x_parts], w_hh.shape[-1]
-    if kernel == "bilstm_fwd" and H > MMA_MAX_H:
-        took = {"bilstm_fwd_f32": "f32", "bilstm_fwd_mma": "bf16"}.get(
-            fwd_kernel(E_parts, H, compute_dtype))
-        if took:
-            raise ValueError("bilstm_layer_fwd: csrc/bilstm_fwd.cu is not asked for by name "
-                             f"where the {took} tensor-core forward takes H={H} past {MMA_MAX_H}")
-    return kernel or fwd_kernel(E_parts, H, compute_dtype)
-
-
 def bilstm_layer_fwd(
     x_parts: Sequence[torch.Tensor],
     lengths: torch.Tensor,
@@ -1844,7 +1744,6 @@ def bilstm_layer_fwd(
     w_hh: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
-    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One bidirectional LSTM layer, time-major, eval variant.
 
@@ -1856,23 +1755,16 @@ def bilstm_layer_fwd(
     :returns: ``hs_f, hs_b (T, B, H)`` in ``compute_dtype``, ``hn, cn
         (2, B, H)`` f32.
 
-    On the card the layer runs the kernel ``fwd_kernel`` names for its
-    shapes and dtype: a tensor-core one through :func:`bilstm_layer_fwd_mma`
-    (bf16) or :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` then
-    counts it, or ``csrc/bilstm_fwd.cu`` here. ``kernel="bilstm_fwd"`` asks
-    for the latter by name (to time it beside the others; not past H = 64
-    where a tensor-core forward took over: f32 at H = 80, bf16 at E = H = 80
-    and 72); a shape it does not take raises.
+    On the card the layer runs the tensor-core kernel ``fwd_kernel`` names
+    for its shapes and dtype, through :func:`bilstm_layer_fwd_mma` (bf16) or
+    :func:`bilstm_layer_fwd_f32` (f32), whose ``.launches`` counts it; a
+    shape neither takes raises.
     """
     x_parts = tuple(x_parts)
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    name = _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel)
-    if name in _TILE_FWD:
-        return _TILE_FWD[name][0](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, False)
-    bilstm_layer_fwd.launches += 1
-    return outs
+    name = fwd_kernel([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+    return _TILE_FWD[name][0](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
 
 
 bilstm_layer_fwd.launches = 0
@@ -1885,7 +1777,6 @@ def bilstm_layer_fwd_train(
     w_hh: torch.Tensor,
     bias: torch.Tensor,
     compute_dtype: torch.dtype,
-    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The train variant of :func:`bilstm_layer_fwd`: the same operands,
     and also the cell streams the backward reads; the same dispatch (the
@@ -1899,12 +1790,8 @@ def bilstm_layer_fwd_train(
     if not x_parts[0].is_cuda:
         return bilstm_layer_fwd_plain(x_parts, lengths, w_ih, w_hh, bias, compute_dtype,
                                       with_states=True)
-    name = _fwd_kernel_of(x_parts, w_hh, compute_dtype, kernel)
-    if name in _TILE_FWD:
-        return _TILE_FWD[name][1](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
-    outs = _fwd_launch(x_parts, lengths, w_ih, w_hh, bias, compute_dtype, True)
-    bilstm_layer_fwd_train.launches += 1
-    return outs
+    name = fwd_kernel([p.shape[-1] for p in x_parts], w_hh.shape[-1], compute_dtype)
+    return _TILE_FWD[name][1](x_parts, lengths, w_ih, w_hh, bias, compute_dtype)
 
 
 bilstm_layer_fwd_train.launches = 0
@@ -2139,11 +2026,12 @@ bilstm_bwd.launches = 0
 
 
 def _tile_sweep(wrapper, plan, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b,
-                dyf, dyb, dhn, dcn, compute_dtype):
+                dyf, dyb, dhn, dcn, compute_dtype, extra=()):
     """The tensor-core sweeps' common body: ``wrapper`` names the kernel
     (``csrc/<name>.cu``, whose C entry takes the operands of
-    ``bilstm_bwd_mma.cu``) and counts its launches; ``plan(E_parts, H,
-    dtype, ny)`` gives ``(threads, smem_bytes)`` or raises. Row tiles are
+    ``bilstm_bwd_mma.cu``, then ``extra`` ints) and counts its launches;
+    ``plan(E_parts, H, dtype, ny)`` gives ``(threads, smem_bytes)`` or
+    raises. Row tiles are
     cut inside each weight group, so nothing is padded. The outputs carry
     no graph, so under grad mode it refuses an operand that requires grad,
     on the CPU too."""
@@ -2173,7 +2061,8 @@ def _tile_sweep(wrapper, plan, x_parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, c
                 None if dcn is None else dcn.data_ptr(),
                 _ptr(dxf, 0), _ptr(dxf, 1), _ptr(dxb, 0), _ptr(dxb, 1),
                 dgc.data_ptr(), dbias_part.data_ptr(),
-                T, B, H, G, tiles, threads, smem, torch.cuda.current_stream(dev).cuda_stream,
+                T, B, H, G, tiles, threads, smem, *extra,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _raise_on_error(name, err)
         wrapper.launches += 1
@@ -2195,18 +2084,22 @@ def bilstm_bwd_mma(
     dhn: Optional[torch.Tensor],
     dcn: Optional[torch.Tensor],
     compute_dtype: torch.dtype,
+    generic: bool = False,
 ):
     """One layer's backward sweep on the tensor cores
     (``csrc/bilstm_bwd_mma.cu``); the contract of
     ``ops/lstm.py:bidir_layer_sweep``: returns ``(dxf, dxb, dgc, dbias)``.
-    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64, E = H = 80
-    and at H % 16 == 8 the shapes of ``bilstm_bwd.cu``) and raises for the
-    rest. Row tiles are cut inside each weight group, so nothing is
-    padded. Its outputs carry no graph, so under grad mode it refuses an
+    Takes the shapes ``bwd_mma_plan`` takes (bfloat16, H <= 64 at any E,
+    E = H = 80 and at H % 16 == 8 the shapes of ``bilstm_bwd.cu``) and
+    raises for the rest. Row tiles are cut inside each weight group, so
+    nothing is padded. ``generic=True`` runs the kernel's run-time
+    ``<0, 0>`` build where the shape has an instance of its own, to time the
+    two. Its outputs carry no graph, so under grad mode it refuses an
     operand that requires grad, on the CPU too: ``BiLSTMStack`` is the way
     in."""
     return _tile_sweep(bilstm_bwd_mma, bwd_mma_plan, x_parts, lengths, w_ih, w_hh, bias,
-                       hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype)
+                       hs_f, hs_b, cs_f, cs_b, dyf, dyb, dhn, dcn, compute_dtype,
+                       (int(generic),))
 
 
 bilstm_bwd_mma.launches = 0
@@ -2282,67 +2175,21 @@ def bilstm_wgrad(
     hs_f: torch.Tensor,
     hs_b: torch.Tensor,
     groups: int,
-    kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer's weight gradients; the contract of
     ``ops/lstm.py:bidir_layer_wgrad``: returns ``dW_ih (2, 4H, E)`` and
     ``dW_hh (2, G, 4H, H)``, f32.
 
-    On the card the products run on the kernel ``wgrad_kernel`` names for
-    the shapes and dtype: a tensor-core one through :func:`bilstm_wgrad_mma`
-    (bf16) or :func:`bilstm_wgrad_f32` (f32), whose ``.launches`` then
-    counts it, or ``csrc/bilstm_wgrad.cu`` here. ``kernel="bilstm_wgrad"``
-    asks for the latter by name (to time it beside the others); a shape it
-    does not take raises."""
+    On the card the products run on the tensor-core kernel ``wgrad_kernel``
+    names for the shapes and dtype, through :func:`bilstm_wgrad_mma` (bf16)
+    or :func:`bilstm_wgrad_f32` (f32), whose ``.launches`` counts it; a
+    shape neither takes raises."""
     x_parts = tuple(x_parts)
     if not dgc.is_cuda:
         return bidir_layer_wgrad(dgc, x_parts, hs_f, hs_b, groups)
-    tensor_core = {"bilstm_wgrad_mma": bilstm_wgrad_mma, "bilstm_wgrad_f32": bilstm_wgrad_f32}
-    if kernel not in (None, "bilstm_wgrad", *tensor_core):
-        raise ValueError(f"bilstm_wgrad: no weight-gradient kernel named {kernel!r}")
-    cd = dgc.dtype
-    E_parts = [p.shape[-1] for p in x_parts]
-    H = hs_f.shape[-1]
-    name = kernel or wgrad_kernel(E_parts, H, cd)
-    if name in tensor_core:
-        return tensor_core[name](dgc, x_parts, hs_f, hs_b, groups)
-    if cd not in _DTYPE_CODES:
-        raise ValueError(f"bilstm_wgrad kernel takes float32 or bfloat16, got {cd}")
-    if len(x_parts) not in (1, 2):
-        raise ValueError(f"bilstm_wgrad kernel takes 1 or 2 input parts, got {len(x_parts)}")
-    dev = dgc.device
-    T, B = x_parts[0].shape[:2]
-    G = groups
-    wgrad_check(E_parts, H)
-    if B % G:
-        raise ValueError(f"bilstm_wgrad kernel: batch {B} is not a multiple of {G} groups")
-    _check("dgc", dgc, (2, T, B, 4 * H), cd, dev)
-    for k, p in enumerate(x_parts):
-        _check(f"x_parts[{k}]", p, (T, B, E_parts[k]), cd, dev)
-    _check("hs_f", hs_f, (T, B, H), cd, dev)
-    _check("hs_b", hs_b, (T, B, H), cd, dev)
-
-    E = sum(E_parts)
-    tiles_y = (4 * H // WGRAD_TILE) * sum(-(-w // WGRAD_TILE) for w in (*E_parts, H))
-    splits = max(1, min(T, math.ceil(WGRAD_TARGET_BLOCKS / (tiles_y * 2 * G))))
-    partial = torch.empty((splits, 2, G, 4 * H, E + H), dtype=torch.float32, device=dev)
-    if B == 0 or T == 0:
-        partial.zero_()
-    else:
-        lib = _kernels("bilstm_wgrad")
-        x1 = x_parts[1] if len(x_parts) == 2 else None
-        with torch.cuda.device(dev):
-            err = lib.bilstm_wgrad(
-                _DTYPE_CODES[cd], dgc.data_ptr(), x_parts[0].data_ptr(),
-                x1.data_ptr() if x1 is not None else None,
-                E_parts[0], E_parts[1] if x1 is not None else 0,
-                hs_f.data_ptr(), hs_b.data_ptr(), partial.data_ptr(),
-                T, B, H, G, splits, torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _raise_on_error("bilstm_wgrad", err)
-        bilstm_wgrad.launches += 1
-    total = partial.sum(dim=0)  # (2, G, 4H, E + H)
-    return total[..., :E].sum(dim=1), total[..., E:].contiguous()
+    name = wgrad_kernel([p.shape[-1] for p in x_parts], hs_f.shape[-1], dgc.dtype)
+    wrapper = bilstm_wgrad_mma if name == "bilstm_wgrad_mma" else bilstm_wgrad_f32
+    return wrapper(dgc, x_parts, hs_f, hs_b, groups)
 
 
 bilstm_wgrad.launches = 0
@@ -4359,13 +4206,14 @@ def _tile_recurrence_sweep(wrapper, dtype_name, smem, xg, valid, w, hs, cs, dhs,
 
 def recurrence_wgrad_kernel(H: int, compute_dtype: torch.dtype) -> str:
     """The kernel the recurrence op's weight gradient takes, by width and
-    compute dtype alone: ``"lstm_recurrence_wgrad_mma"`` for bfloat16 (the
-    tensor cores), ``"lstm_recurrence_wgrad"`` for float32 (CUDA cores);
-    ValueError for what neither takes (``recurrence_check``)."""
+    compute dtype alone: ``"lstm_recurrence_wgrad_mma"`` for bfloat16,
+    ``"lstm_recurrence_wgrad_f32"`` for float32 (three tf32 passes), both on
+    the tensor cores at every width the op takes; ValueError for what
+    neither takes (``recurrence_check``)."""
     recurrence_check(H, compute_dtype)
     if compute_dtype == torch.bfloat16:
         return "lstm_recurrence_wgrad_mma"
-    return "lstm_recurrence_wgrad"
+    return "lstm_recurrence_wgrad_f32"
 
 
 def recurrence_wgrad_mma_plan(T: int, B: int, D: int, G: int, H: int) -> Tuple[int, int, int]:
@@ -4382,6 +4230,33 @@ def recurrence_wgrad_mma_plan(T: int, B: int, D: int, G: int, H: int) -> Tuple[i
     splits = max(1, min(-(-rows // REC_WGRAD_MMA_TILE_K),
                         REC_WGRAD_MMA_TARGET_BLOCKS // per_split))
     return m_tiles, n_tiles, splits
+
+
+def recurrence_wgrad_f32_smem(tile_n: int) -> int:
+    """Dynamic shared memory (bytes) of the f32 recurrence wgrad's 64 x
+    ``tile_n`` tile: ``REC_WGRAD_F32_STAGES`` stages of 32 rows of both
+    operands' f32 tile widths plus 8 (both fit the blocks an SM it holds)."""
+    return (REC_WGRAD_F32_STAGES * REC_WGRAD_F32_TILE_K
+            * (REC_WGRAD_F32_TILE_M + tile_n + 16) * 4)
+
+
+def recurrence_wgrad_f32_plan(T: int, B: int, D: int, G: int, H: int, sms: int,
+                              tile_n: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(m_tiles, n_tiles, splits)`` of the f32 tensor-core recurrence
+    wgrad with block tile 64 x ``tile_n`` (``REC_WGRAD_F32_TILE_N`` when
+    None): 64-column tiles of the H h columns (the last one partly
+    zero where H % 64 == 32), ``tile_n``-column tiles of the 4H gates, and
+    the split of each group's ``(T - 1) * B / G`` rows whose blocks fill the
+    card's ``sms`` SMs in whole waves best, at the tile's blocks an SM
+    (``REC_WGRAD_F32_BLOCKS``), as ``wgrad_f32_plan`` splits; at least one
+    split and no more splits than K-tiles."""
+    tile_n = tile_n or REC_WGRAD_F32_TILE_N
+    m_tiles = -(-H // REC_WGRAD_F32_TILE_M)
+    n_tiles = 4 * H // tile_n
+    k_tiles = max(1, -(-max(0, T - 1) * (B // G) // REC_WGRAD_F32_TILE_K))
+    per_split = m_tiles * n_tiles * D * G
+    return m_tiles, n_tiles, _whole_wave_splits(per_split, k_tiles,
+                                                sms * REC_WGRAD_F32_BLOCKS[tile_n])
 
 
 def recurrence_wgrad_mma_rows(T: int, B: int, G: int, splits: int, split: int, g: int):
@@ -4419,21 +4294,25 @@ def lstm_recurrence_wgrad(hs: torch.Tensor, dxg: torch.Tensor, G: int,
     from ``hs (T, D, B, H)`` and ``dxg (T, D, B, 4H)``, both f32, rounded
     to ``compute_dtype`` as they are read.
 
-    On the card it runs the kernel ``recurrence_wgrad_kernel`` names for the
-    width and dtype: the tensor-core one through
-    :func:`lstm_recurrence_wgrad_mma` (whose ``.launches`` then counts it),
-    or ``csrc/lstm_recurrence_wgrad.cu`` here. ``kernel="lstm_recurrence_wgrad"``
-    asks for the latter by name (to time it beside the other)."""
+    On the card it runs the tensor-core kernel ``recurrence_wgrad_kernel``
+    names for the width and dtype, through :func:`lstm_recurrence_wgrad_mma`
+    (bf16) or :func:`lstm_recurrence_wgrad_f32` (f32), whose ``.launches``
+    then counts it. ``kernel="lstm_recurrence_wgrad"`` asks for
+    ``csrc/lstm_recurrence_wgrad.cu`` (CUDA cores, either dtype) by name,
+    to time it beside them; it runs on no path."""
     _no_graph(hs, dxg)
     if not hs.is_cuda:
         return recurrence_wgrad(hs, dxg, G, compute_dtype)
     cd = compute_dtype
     name = "lstm_recurrence_wgrad"
-    if kernel not in (None, name, "lstm_recurrence_wgrad_mma"):
+    tensor_core = {"lstm_recurrence_wgrad_mma": lstm_recurrence_wgrad_mma,
+                   "lstm_recurrence_wgrad_f32": lstm_recurrence_wgrad_f32}
+    if kernel not in (None, name, *tensor_core):
         raise ValueError(f"lstm_recurrence_wgrad: no weight-gradient kernel named {kernel!r}")
     dev, T, D, B, H = _recurrence_wgrad_operands(hs, dxg, G, cd, name)
-    if (kernel or recurrence_wgrad_kernel(H, cd)) == "lstm_recurrence_wgrad_mma":
-        return lstm_recurrence_wgrad_mma(hs, dxg, G, cd)
+    kernel = kernel or recurrence_wgrad_kernel(H, cd)
+    if kernel in tensor_core:
+        return tensor_core[kernel](hs, dxg, G, cd)
     tiles_y = (4 * H // WGRAD_TILE) * -(-H // WGRAD_TILE)
     splits = max(1, min(T, math.ceil(WGRAD_TARGET_BLOCKS / (tiles_y * D * G))))
     partial = torch.empty((splits, D, G, H, 4 * H), dtype=torch.float32, device=dev)
@@ -4487,3 +4366,47 @@ def lstm_recurrence_wgrad_mma(hs: torch.Tensor, dxg: torch.Tensor, G: int,
 
 
 lstm_recurrence_wgrad_mma.launches = 0
+
+
+def lstm_recurrence_wgrad_f32(hs: torch.Tensor, dxg: torch.Tensor, G: int,
+                              compute_dtype: torch.dtype,
+                              tile_n: Optional[int] = None) -> torch.Tensor:
+    """The recurrence's weight gradient in f32 on the tensor cores, three
+    tf32 passes a product (``csrc/lstm_recurrence_wgrad_f32.cu``: a split-K
+    GEMM over a cp.async ring of the f32 streams); the contract of
+    :func:`lstm_recurrence_wgrad`. Takes compute dtype float32 at every
+    width the op takes and raises for the rest; block tile 64 x
+    ``REC_WGRAD_F32_TILE_N`` (``tile_n`` pins the other of
+    ``REC_WGRAD_F32_BLOCKS``, to time it), split by
+    ``recurrence_wgrad_f32_plan``. Every block writes its partial tile,
+    empty row ranges included; with no row (``T <= 1`` or an empty batch)
+    it returns zeros without a launch. Its output carries no graph, so
+    under grad mode it refuses an operand that requires grad, on the CPU
+    too."""
+    _no_graph(hs, dxg)
+    if not hs.is_cuda:
+        return recurrence_wgrad(hs, dxg, G, compute_dtype)
+    cd = compute_dtype
+    name = "lstm_recurrence_wgrad_f32"
+    dev, T, D, B, H = _recurrence_wgrad_operands(hs, dxg, G, cd, name)
+    if recurrence_wgrad_kernel(H, cd) != name:
+        raise ValueError(f"{name} kernel takes compute dtype float32, got {cd}")
+    if tile_n is not None and tile_n not in REC_WGRAD_F32_BLOCKS:
+        raise ValueError(f"{name} is built for 64 x {sorted(REC_WGRAD_F32_BLOCKS)} tiles, "
+                         f"got 64 x {tile_n}")
+    if B * D == 0 or T <= 1:
+        return torch.zeros((D, G, H, 4 * H), dtype=torch.float32, device=dev)
+    tile_n = tile_n or REC_WGRAD_F32_TILE_N
+    _, _, splits = recurrence_wgrad_f32_plan(T, B, D, G, H, _sm_count(dev), tile_n)
+    partial = torch.empty((splits, D, G, H, 4 * H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels(name).lstm_recurrence_wgrad_f32(
+            hs.data_ptr(), dxg.data_ptr(), partial.data_ptr(), D, T, B, H, G, splits, tile_n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(name, err)
+    lstm_recurrence_wgrad_f32.launches += 1
+    return partial.sum(dim=0)
+
+
+lstm_recurrence_wgrad_f32.launches = 0

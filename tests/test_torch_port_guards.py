@@ -54,8 +54,8 @@ def test_every_kernel_source_is_built_and_bound():
     from intrepppid_tpu_torch.ops import _build, lstm_cuda
 
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"bilstm_fwd", "bilstm_bwd", "bilstm_wgrad",
-                       "lstm_recurrence_wgrad", "bilstm_bwd_mma",
+    assert sources == {"bilstm_bwd", "lstm_recurrence_wgrad", "lstm_recurrence_wgrad_f32",
+                       "bilstm_bwd_mma",
                        "lstm_recurrence_bwd_mma", "bilstm_fwd_mma", "bilstm_wgrad_mma",
                        "bilstm_bwd_f32", "lstm_recurrence_wgrad_mma", "bilstm_fwd_f32",
                        "lstm_recurrence_bwd_f32", "bilstm_gates_mma", "bilstm_bwd_lite_mma",
@@ -88,6 +88,7 @@ def test_every_kernel_source_is_built_and_bound():
                       ("lstm_recurrence_fwd_f32", "mma_tf32("),
                       ("bilstm_fwd_mma", "mma_bf16("), ("bilstm_wgrad_mma", "mma_bf16("),
                       ("lstm_recurrence_wgrad_mma", "mma_bf16("),
+                      ("lstm_recurrence_wgrad_f32", "mma_tf32("),
                       ("bilstm_gates_mma", "mma_bf16("), ("bilstm_gates_f32", "mma_tf32("),
                       ("bilstm_bwd_f32", "mma_tf32("), ("bilstm_fwd_f32", "mma_tf32("),
                       ("bilstm_bwd_f32_onestage", "mma_tf32("),

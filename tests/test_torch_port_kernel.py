@@ -69,34 +69,12 @@ def test_wrapper_takes_plain_version_on_cpu():
     parts = (torch.randn(T, B, H), torch.randn(T, B, H))
     args = (parts, torch.tensor([5, 0, 2, 4], dtype=torch.int32),
             torch.randn(2, 4 * H, 2 * H), torch.randn(2, 4 * H, H), torch.randn(2, 4 * H))
-    before = lstm_cuda.bilstm_layer_fwd.launches
+    before = lstm_cuda.bilstm_layer_fwd_f32.launches
     got = lstm_cuda.bilstm_layer_fwd(*args, torch.float32)
     want = bidir_layer(*args, torch.float32)
-    assert lstm_cuda.bilstm_layer_fwd.launches == before
+    assert lstm_cuda.bilstm_layer_fwd_f32.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-
-
-@pytest.mark.parametrize(
-    "E_parts,H,dtype,ok",
-    [
-        ([64], 64, torch.float32, True),
-        ([64, 64], 64, torch.float32, True),   # 192 KB of f32 weights fits
-        ([64, 64], 64, torch.bfloat16, True),
-        ([32, 32], 32, torch.float32, True),
-        ([128, 128], 128, torch.float32, False),  # weights past shared memory
-        ([60], 64, torch.bfloat16, False),        # not a 16-byte multiple
-        ([64], 66, torch.float32, False),
-    ],
-)
-def test_launch_plan(E_parts, H, dtype, ok):
-    if not ok:
-        with pytest.raises(ValueError, match="bilstm kernel"):
-            lstm_cuda.launch_plan(E_parts, H, dtype)
-        return
-    threads, rows, smem = lstm_cuda.launch_plan(E_parts, H, dtype)
-    assert threads % H == 0 and threads <= 256 and rows == threads // H * 4
-    assert smem <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize(
@@ -119,21 +97,6 @@ def test_bwd_launch_plan(E_parts, H, dtype, ok):
     threads, rows, smem = lstm_cuda.bwd_launch_plan(E_parts, H, dtype)
     assert threads % H == 0 and threads <= 256 and rows == threads // H * 2
     assert smem <= lstm_cuda.SMEM_LIMIT
-
-
-def test_forward_rows_per_thread_fills_one_wave():
-    # 400 train rows at H = 64: 16-row tiles give 50 blocks, 8-row 100
-    assert lstm_cuda.fwd_rows_per_thread(400, 64, 132) == 2
-    # 800 serve rows would need 200 blocks of 8 rows: two waves, so 16
-    assert lstm_cuda.fwd_rows_per_thread(800, 64, 132) == 4
-    assert lstm_cuda.launch_plan([64], 64, torch.float32, 2)[1] == 8
-
-
-def test_wgrad_check():
-    lstm_cuda.wgrad_check([64, 64], 64)
-    lstm_cuda.wgrad_check([32], 32)
-    with pytest.raises(ValueError, match="bilstm_wgrad kernel"):
-        lstm_cuda.wgrad_check([64], 24)  # 4H not a multiple of 64
 
 
 def test_group_padding_round_trip():
@@ -165,11 +128,29 @@ def layer_case(T, B, E_parts, H, G, dtype, dev, seed=0):
     return parts, lengths, w_ih, w_hh, bias, dy, u(2, B, H), u(2, B, H)
 
 
+def _cuda_core_fwd_plan(E_parts, H, dtype):
+    """ValueError for a shape the deleted ``csrc/bilstm_fwd.cu`` did not
+    take (its ``launch_plan``: 256 threads of H units, 4 rows a thread,
+    both weights resident in the compute dtype beside two f32 [x ; h]
+    tiles, at most 4 input chunks a thread); the tests that hold a plan
+    change against the trees that had it read it here."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec, E = 16 // size, sum(E_parts)
+    if H % 4 or H > 256 or any(e <= 0 or e % vec for e in E_parts):
+        raise ValueError(f"bilstm_fwd.cu took no E_parts={list(E_parts)}, H={H}")
+    groups = 256 // H
+    rows = 4 * groups
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    smem = a16(E * 4 * H * size) + a16(H * 4 * H * size) + 2 * rows * (E + H) * 4
+    if smem > lstm_cuda.SMEM_LIMIT or rows * E // vec > 4 * H * groups:
+        raise ValueError(f"bilstm_fwd.cu took no E_parts={list(E_parts)}, H={H}")
+
+
 def test_train_wrappers_take_plain_versions_on_cpu():
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [8, 8], 8, 2, torch.float32, torch.device("cpu"))
-    counts = [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_bwd,
-                                   lstm_cuda.bilstm_wgrad)]
+    counts = [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train_f32, lstm_cuda.bilstm_bwd,
+                                   lstm_cuda.bilstm_wgrad_f32)]
     fwd = lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, torch.float32)
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.float32, with_states=True)
     assert all(torch.equal(a, b) for a, b in zip(fwd, want))
@@ -182,8 +163,8 @@ def test_train_wrappers_take_plain_versions_on_cpu():
     gw = lstm_cuda.bilstm_wgrad(got[2], parts, hs_f, hs_b, 2)
     rw = bidir_layer_wgrad(got[2], parts, hs_f, hs_b, 2)
     assert all(torch.equal(a, b) for a, b in zip(gw, rw))
-    assert [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_bwd,
-                                 lstm_cuda.bilstm_wgrad)] == counts
+    assert [f.launches for f in (lstm_cuda.bilstm_layer_fwd_train_f32, lstm_cuda.bilstm_bwd,
+                                 lstm_cuda.bilstm_wgrad_f32)] == counts
 
 
 def test_wide_wrappers_take_plain_versions_on_cpu():
@@ -469,10 +450,16 @@ def test_recurrence_check(H, dtype, ok):
         ([40], 40, torch.bfloat16, "bilstm_bwd_mma"),
         ([120], 40, torch.bfloat16, "bilstm_bwd_mma"),
         ([56, 56], 56, torch.bfloat16, "bilstm_bwd_mma"),
-        ([16, 16], 16, torch.bfloat16, "bilstm_bwd"),  # H % 16 == 0 and K = 48: the CUDA cores
-        ([8], 16, torch.bfloat16, "bilstm_bwd"),
+        # H % 16 == 0 and K = 48 or 24: run to 64 or 32 over zero columns
+        # (ids kept from the CUDA-core sweep's cases)
+        pytest.param([16, 16], 16, torch.bfloat16, "bilstm_bwd_mma",
+                     id="E_parts20-16-dtype20-bilstm_bwd"),
+        pytest.param([8], 16, torch.bfloat16, "bilstm_bwd_mma",
+                     id="E_parts21-16-dtype21-bilstm_bwd"),
         ([72], 72, torch.float32, "bilstm_bwd"),  # f32 keeps the CUDA cores at 72
-        ([16], 64, torch.bfloat16, None),   # K = 80: neither sweep takes it
+        # K = 80: the tensor-core sweep takes it (run as 96); no forward does
+        pytest.param([16], 64, torch.bfloat16, "bilstm_bwd_mma", id="E_parts23-64-dtype23-None"),
+        ([16], 96, torch.bfloat16, None),   # neither sweep takes H = 96
         ([64], 60, torch.bfloat16, None),
         ([48], 80, torch.bfloat16, None),   # no E but 80 past H = 64; bilstm_bwd.cu neither
     ],
@@ -483,6 +470,13 @@ def test_sweep_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
             lstm_cuda.sweep_kernel(E_parts, H, dtype)
         return
     assert lstm_cuda.sweep_kernel(E_parts, H, dtype) == kernel
+    if (H, sum(E_parts)) == (64, 16):
+        # no forward takes it, so the layer runs padded: its parts at 64
+        with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes"):
+            lstm_cuda.fwd_kernel(E_parts, H, dtype)
+        assert (lstm_cuda.padded_width(E_parts, H, dtype),
+                lstm_cuda.padded_parts(E_parts, H, dtype)) == (64, (64,))
+        return
     assert lstm_cuda.layer_route(E_parts, H, dtype) == "resident"
 
 
@@ -588,11 +582,44 @@ def test_bwd_mma_plan_at_h_mod_16_eq_8():
     assert lstm_cuda.layer_route([72, 72], 72, bf16) == "wide"
     assert (lstm_cuda.padded_width([72, 72], 72, bf16),
             lstm_cuda.padded_parts([72, 72], 72, bf16)) == (96, (80, 80))
-    # H % 16 == 0 keeps its rule: K = E + H a multiple of 32, else the CUDA cores
+    # H % 16 == 0 at K % 32 != 0: the same zero columns (the next test)
     for E_parts, H in (([16, 16], 16), ([8], 16), ([24], 48)):
+        assert lstm_cuda.sweep_kernel(E_parts, H, bf16) == "bilstm_bwd_mma"
+
+
+@pytest.mark.parametrize("E_parts,H,threads,smem", [
+    ([8], 16, 64, 12800), ([16, 16], 16, 96, 18432), ([8, 8], 32, 128, 32000),
+    ([24], 48, 192, 59392)])
+def test_bwd_mma_plan_at_any_k(E_parts, H, threads, smem):
+    """At H in ``BWD_MMA_ANY_K_WIDTHS`` (16-64) the tensor-core sweep takes
+    every E whose parts are multiples of 8, K = E + H run to the next
+    multiple of 32 over zero columns as at H % 16 == 8: one warp per 8
+    units and one per 16 dx columns past the first H; shared memory for the
+    resident weights (4H rows of Kp + 8), two dgates tiles (8 rows of 4H +
+    8) and three stages of the [x ; h] tile (8 rows of Kp + 8), c_prev and
+    the dy tiles (8 rows of H + 8 each). The stacked layer of the bf16
+    model at embedding 16 (E = 16 + 16, K = 48) is the main path: 3 warps,
+    18,432 B. It still refuses f32, parts that are not multiples of 8, and
+    widths outside its lists (H = 96; H = 80 but at E = 80)."""
+    bf16 = torch.bfloat16
+    assert lstm_cuda.BWD_MMA_ANY_K_WIDTHS == (16, 32, 48, 64)
+    E = sum(E_parts)
+    Kp = -(-(E + H) // 32) * 32
+    assert (E + H) % 32 and Kp > E + H
+    assert lstm_cuda.bwd_mma_plan(E_parts, H, bf16) == (threads, smem)
+    assert smem == (4 * H * (Kp + 8) * 2 + 2 * 8 * (4 * H + 8) * 2
+                    + 3 * 8 * 2 * (Kp + 8 + 3 * (H + 8)))
+    assert threads == 32 * (H // 8 + -(-max(0, E // 8 - H // 8) // 2)) >= 4 * H
+    assert lstm_cuda.bwd_mma_plan(E_parts, H, bf16, ny=0)[1] == smem - 3 * 8 * 2 * 2 * (H + 8)
+    assert lstm_cuda.sweep_kernel(E_parts, H, bf16) == "bilstm_bwd_mma"
+    with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+        lstm_cuda.bwd_mma_plan(E_parts, H, torch.float32)
+    with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
+        lstm_cuda.bwd_mma_plan([E + 4], H, bf16)
+    for E_parts, H in (([16], 96), ([40], 80), ([80, 80], 80)):
         with pytest.raises(ValueError, match="bilstm_bwd_mma kernel takes bfloat16"):
             lstm_cuda.bwd_mma_plan(E_parts, H, bf16)
-        assert lstm_cuda.sweep_kernel(E_parts, H, bf16) == "bilstm_bwd"
+    assert lstm_cuda.sweep_kernel([40], 80, bf16) == "bilstm_bwd"
 
 
 def test_mma_tiles_are_cut_inside_each_weight_group():
@@ -812,14 +839,14 @@ def test_recurrence_fwd_mma_wrapper_takes_plain_version_on_cpu(H, D):
 
 def test_recurrence_kernels_by_width_are_the_parents_but_bf16_past_288():
     """Every width the op's kernels take (H % 32 == 0, 32 to 1024) in f32
-    and bf16 names a tensor-core forward and sweep (f32 in three tf32
-    passes) and the wgrad it named before: at 32 and 64 the one-block
+    and bf16 names a tensor-core forward, sweep and wgrad (f32 in three
+    tf32 passes; the f32 wgrad was the CUDA-core one before): at 32 and 64 the one-block
     kernels, from 96 to 288 the kernels whose blocks hold their share of the
     weight fragments, past 288 the ones reading them from L2; what was
     refused stays refused."""
     def parent(H, dtype):
         wgrad = "lstm_recurrence_wgrad_mma" if dtype == torch.bfloat16 \
-            else "lstm_recurrence_wgrad"
+            else "lstm_recurrence_wgrad_f32"
         if H in (32, 64):
             return (("lstm_recurrence_fwd_mma", "lstm_recurrence_bwd_mma", wgrad)
                     if dtype == torch.bfloat16 else
@@ -1093,12 +1120,15 @@ def test_lite_mma_uneven_plan_at_256():
         ([40, 40], 80, torch.float32, "bilstm_fwd_f32"),
         ([80], 80, torch.bfloat16, "bilstm_fwd_mma"),  # bf16 at E = H = 80: its <80, 80> instance
         ([128, 128], 128, torch.float32, None),        # too wide for any
-        ([32], 64, torch.bfloat16, "bilstm_fwd"),      # (H, E) not instantiated
+        # (H, E) not instantiated: no forward since bilstm_fwd.cu went (ids
+        # kept from its cases)
+        pytest.param([32], 64, torch.bfloat16, None, id="E_parts16-64-dtype16-bilstm_fwd"),
         ([60], 64, torch.bfloat16, None),               # parts not multiples of 8
         ([128, 128], 128, torch.bfloat16, None),        # too wide for either
         ([40, 40], 80, torch.bfloat16, "bilstm_fwd_mma"),
         ([72], 72, torch.bfloat16, "bilstm_fwd_mma"),  # its <72, 72> instance: nine k16 steps
-        ([72], 72, torch.float32, "bilstm_fwd"),       # f32 at H % 16 == 8: the CUDA cores
+        pytest.param([72], 72, torch.float32, None,    # f32 at H % 16 == 8
+                     id="E_parts21-72-dtype21-bilstm_fwd"),
         # bf16 at 56: its <56, 56> instance, K = 112 in k16 steps (id kept
         # from the CUDA-core forward's case); at 24 and 40 a k8 tail
         pytest.param([56], 56, torch.bfloat16, "bilstm_fwd_mma",
@@ -1111,7 +1141,7 @@ def test_lite_mma_uneven_plan_at_256():
 )
 def test_fwd_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
     if kernel is None:
-        with pytest.raises(ValueError, match="bilstm kernel.*; bilstm_fwd_mma kernel takes"):
+        with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel.*; bilstm_fwd_mma kernel takes"):
             lstm_cuda.fwd_kernel(E_parts, H, dtype)
         return
     assert lstm_cuda.fwd_kernel(E_parts, H, dtype) == kernel
@@ -1169,7 +1199,7 @@ def test_fwd_mma_plan(H, E):
 )
 def test_wgrad_kernel_by_shape_and_dtype(E_parts, H, dtype, kernel):
     if kernel is None:
-        with pytest.raises(ValueError, match="bilstm_wgrad kernel.*; bilstm_wgrad_mma kernel"):
+        with pytest.raises(ValueError, match="bilstm_wgrad_mma kernel.*; bilstm_wgrad_f32 kernel"):
             lstm_cuda.wgrad_kernel(E_parts, H, dtype)
         return
     assert lstm_cuda.wgrad_kernel(E_parts, H, dtype) == kernel
@@ -1223,8 +1253,7 @@ def test_forward_and_wgrad_mma_wrappers_take_plain_versions_on_cpu():
     before = [f.launches for f in wrappers]
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
     for got in (lstm_cuda.bilstm_layer_fwd_train_mma(parts, lengths, w_ih, w_hh, bias, cd),
-                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd,
-                                                 kernel="bilstm_fwd")):
+                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd)):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_layer_fwd_mma(parts, lengths, w_ih, w_hh, bias, cd),
                 lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)):
@@ -1234,7 +1263,7 @@ def test_forward_and_wgrad_mma_wrappers_take_plain_versions_on_cpu():
                             dy[:1], dy[2:3], dhn, dcn, cd)[2]
     ref = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, 2)
     for got in (lstm_cuda.bilstm_wgrad_mma(dgc, parts, hs_f, hs_b, 2),
-                lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, 2, kernel="bilstm_wgrad")):
+                lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, 2)):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -1332,8 +1361,14 @@ def test_bwd_f32_plan(E_parts, H, threads, smem):
 
 @pytest.mark.parametrize("H,dtype,kernel", [
     *((H, torch.bfloat16, "lstm_recurrence_wgrad_mma") for H in (32, 64, 96, 256)),
-    (64, torch.float32, "lstm_recurrence_wgrad"), (256, torch.float32, "lstm_recurrence_wgrad"),
-    (48, torch.bfloat16, None), (64, torch.float16, None)])
+    # f32 on the tensor cores in three tf32 passes at every width (ids kept
+    # from the CUDA-core kernel's cases)
+    pytest.param(64, torch.float32, "lstm_recurrence_wgrad_f32",
+                 id="64-dtype4-lstm_recurrence_wgrad"),
+    pytest.param(256, torch.float32, "lstm_recurrence_wgrad_f32",
+                 id="256-dtype5-lstm_recurrence_wgrad"),
+    (48, torch.bfloat16, None), (64, torch.float16, None),
+    *((H, torch.float32, "lstm_recurrence_wgrad_f32") for H in (32, 96, 128, 288, 320, 1024))])
 def test_recurrence_wgrad_kernel_by_width_and_dtype(H, dtype, kernel):
     if kernel is None:
         with pytest.raises(ValueError, match="H % 32 == 0"):
@@ -1359,6 +1394,40 @@ def test_recurrence_wgrad_mma_plan(T, B, D, G, H, want):
     assert splits == 1 or blocks <= lstm_cuda.REC_WGRAD_MMA_TARGET_BLOCKS
     assert splits <= max(1, -(-(T - 1) * (B // G) // lstm_cuda.REC_WGRAD_MMA_TILE_K))
     assert lstm_cuda.REC_WGRAD_MMA_SMEM <= lstm_cuda.SMEM_LIMIT // 2  # two blocks an SM
+
+
+@pytest.mark.parametrize("T,B,D,G,H,want", [
+    (1500, 400, 2, 5, 32, (1, 2, 66)), (1500, 400, 2, 5, 64, (1, 4, 33)),
+    (1500, 400, 2, 1, 64, (1, 4, 33)), (1500, 400, 2, 5, 96, (2, 6, 11)),
+    (1500, 400, 2, 5, 128, (2, 8, 13)), (1500, 400, 2, 5, 288, (5, 18, 2)),
+    (1500, 400, 2, 1, 320, (5, 20, 9)), (300, 400, 2, 5, 1024, (16, 64, 1))])
+def test_recurrence_wgrad_f32_plan(T, B, D, G, H, want):
+    """The f32 tensor-core recurrence wgrad: 64-column tiles of the h
+    columns (the last one half zero where H % 64 == 32), 64-column tiles of
+    the gates (the tile the dispatch takes at every width: the faster in
+    turns at H = 64 and 128), two blocks an SM, and the split whose blocks
+    fill the card's 132 SMs in whole waves best (at most
+    ``WGRAD_F32_MAX_WAVES``, no more splits than 32-row K-tiles); the
+    64 x 128 tile, one block an SM, splits the same rows over half the
+    blocks. Both tiles' shared memory lets their blocks share an SM."""
+    assert lstm_cuda.REC_WGRAD_F32_TILE_N == 64
+    plan = lstm_cuda.recurrence_wgrad_f32_plan(T, B, D, G, H, 132)
+    assert plan == want == lstm_cuda.recurrence_wgrad_f32_plan(T, B, D, G, H, 132, 64)
+    m_tiles, n_tiles, splits = plan
+    assert (m_tiles - 1) * 64 < H <= m_tiles * 64 and n_tiles * 64 == 4 * H
+    k_tiles = -(-(T - 1) * (B // G) // lstm_cuda.REC_WGRAD_F32_TILE_K)
+    per_split = m_tiles * n_tiles * D * G
+    assert 1 <= splits <= k_tiles
+    assert per_split * splits <= lstm_cuda.WGRAD_F32_MAX_WAVES * 264 or splits == 1
+    waves = lambda s, slots: -(-per_split * s // slots) / s  # noqa: E731
+    assert all(waves(splits, 264) <= waves(s, 264) for s in range(1, splits + 1))
+    wide = lstm_cuda.recurrence_wgrad_f32_plan(T, B, D, G, H, 132, 128)
+    assert wide[:2] == (m_tiles, n_tiles // 2) and wide[2] >= 1
+    assert lstm_cuda.REC_WGRAD_F32_BLOCKS == {128: 1, 64: 2}
+    for tile_n, blocks in lstm_cuda.REC_WGRAD_F32_BLOCKS.items():
+        smem = lstm_cuda.recurrence_wgrad_f32_smem(tile_n)
+        assert smem == 4 * 32 * (64 + 8 + tile_n + 8) * 4
+        assert blocks * (smem + lstm_cuda.BLOCK_SMEM_RESERVE) <= lstm_cuda.SM_SMEM
 
 
 @pytest.mark.parametrize("T,B,G", [(5, 40, 5), (3, 400, 1), (2, 27, 3), (7, 12, 1), (1, 6, 2)])
@@ -1420,6 +1489,48 @@ def test_f32_sweep_and_recurrence_wgrad_wrappers_take_plain_versions_on_cpu():
     assert [f.launches for f in wrappers] == before
 
 
+def test_any_k_sweep_and_f32_recurrence_wgrad_wrappers_take_plain_versions_on_cpu():
+    """The bf16 tensor-core sweep at the stacked layer of the bf16 model at
+    embedding 16 (K = 48), its instance and its run-time build, and the f32
+    tensor-core recurrence wgrad at either tile take their plain twins on
+    the CPU and count no launch; the latter refuses an operand that
+    requires grad under grad mode, as the bf16 one does."""
+    cd = torch.bfloat16
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
+        5, 10, [16, 16], 16, 2, cd, torch.device("cpu"))
+    wrappers = (lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd, lstm_cuda.lstm_recurrence_wgrad,
+                lstm_cuda.lstm_recurrence_wgrad_f32)
+    before = [f.launches for f in wrappers]
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    for ny in (0, 1, 2):
+        args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+                dhn, dcn, cd)
+        ref = bidir_layer_sweep(*args)
+        for got in (lstm_cuda.bilstm_bwd_mma(*args), lstm_cuda.bilstm_bwd_mma(*args, generic=True),
+                    lstm_cuda.bilstm_bwd(*args)):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(got[0] + got[1] + got[2:], ref[0] + ref[1] + ref[2:]))
+    xg, valid, w, dhs, dhn, dcn = recurrence_case(6, 3, 6, 64, 2, torch.float32,
+                                                  torch.device("cpu"), "holes")
+    hs, cs, _, _ = recurrence_fwd(xg, valid, w, 2, torch.float32)
+    dxg = recurrence_sweep(xg, valid, w, hs, cs, dhs, dhn, dcn, 2, torch.float32)
+    dw = recurrence_wgrad(hs, dxg, 2, torch.float32)
+    for tile_n in (None, 128, 64):
+        assert torch.equal(lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg, 2, torch.float32,
+                                                               tile_n=tile_n), dw)
+    assert torch.equal(lstm_cuda.lstm_recurrence_wgrad(hs, dxg, 2, torch.float32), dw)
+    assert torch.equal(lstm_cuda.lstm_recurrence_wgrad(
+        hs, dxg, 2, torch.float32, kernel="lstm_recurrence_wgrad_f32"), dw)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_wgrad_f32(hs.clone().requires_grad_(), dxg, 2, torch.float32)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg.clone().requires_grad_(), 2, torch.float32)
+    with torch.no_grad():
+        lstm_cuda.lstm_recurrence_wgrad_f32(hs.clone().requires_grad_(), dxg, 2, torch.float32)
+    assert [f.launches for f in wrappers] == before
+
+
 # ------- the f32 tensor-core forward and recurrence sweep (three tf32 passes)
 @pytest.mark.parametrize("E_parts,H,rows,smem", [
     ([64], 64, 8, 147968), ([64, 64], 64, 8, 217600), ([64, 64], 64, 16, 230400),
@@ -1471,7 +1582,7 @@ def test_fwd_f32_rows_picks_the_tile_height(B, G, sms, rows):
 def _resident_before_f32_forward(E_parts, H, dtype):
     """``layer_route``'s answer as it was before the f32 tensor-core
     forward: resident where either older forward plan and a sweep fit."""
-    for plan in (lstm_cuda.fwd_mma_plan, lstm_cuda.launch_plan):
+    for plan in (lstm_cuda.fwd_mma_plan, _cuda_core_fwd_plan):
         try:
             plan(E_parts, H, dtype)
             break
@@ -1488,10 +1599,12 @@ def _resident_before_f32_forward(E_parts, H, dtype):
 
 def test_f32_forward_changes_no_route():
     """Every (E_parts, H, dtype) the resident route took before the f32
-    tensor-core forward keeps that route at its own width; a layer it did
-    not take is resident at its own width now only where ``bilstm_fwd_f32``
-    takes it (``fwd_f32_plan`` no longer waits on ``launch_plan``), and bf16
-    keeps its kernel; the new kernel takes each model shape in f32."""
+    tensor-core forward keeps that route at its own width, but the shapes
+    whose only forward was the deleted ``bilstm_fwd.cu`` (no layer of the
+    width grid runs at one); a layer it did not take is resident at its own
+    width now only where ``bilstm_fwd_f32`` takes it (``fwd_f32_plan`` did
+    not wait on the CUDA-core plan), and bf16 keeps its kernel; the new
+    kernel takes each model shape in f32."""
     for H in range(8, 272, 8):
         for E_parts in ([8], [16], [24], [32], [40], [48], [64], [96], [120], [128], [256],
                         [32, 32], [48, 48], [64, 64], [128, 128], [256, 256]):
@@ -1500,6 +1613,11 @@ def test_f32_forward_changes_no_route():
                 own = (route, Hp, Ep) == ("resident", H, tuple(E_parts))
                 if (_resident_before_f32_forward(E_parts, H, dtype)
                         and _has_wgrad(E_parts, H, dtype)):
+                    try:
+                        lstm_cuda.fwd_kernel(E_parts, H, dtype)
+                    except ValueError:  # bilstm_fwd.cu's alone
+                        assert not own, (E_parts, H, dtype)
+                        continue
                     assert own, (E_parts, H, dtype)
                 elif own:
                     assert lstm_cuda.fwd_kernel(E_parts, H, dtype) == "bilstm_fwd_f32"
@@ -1511,7 +1629,7 @@ def test_f32_forward_changes_no_route():
                 elif H <= 64 and H % 16 == 0 and sum(E_parts) <= 2 * H:
                     assert kernel == "bilstm_fwd_f32", (E_parts, H)
                 if kernel == "bilstm_fwd_f32":
-                    lstm_cuda.launch_plan(E_parts, H, dtype)
+                    _cuda_core_fwd_plan(E_parts, H, dtype)
 
 
 def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
@@ -1524,9 +1642,7 @@ def test_f32_forward_and_recurrence_sweep_wrappers_take_plain_versions_on_cpu():
     before = [f.launches for f in wrappers]
     want = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd, with_states=True)
     for got in (lstm_cuda.bilstm_layer_fwd_train_f32(parts, lengths, w_ih, w_hh, bias, cd),
-                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd),
-                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd,
-                                                 kernel="bilstm_fwd_f32")):
+                lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh, bias, cd)):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
     for got in (lstm_cuda.bilstm_layer_fwd_f32(parts, lengths, w_ih, w_hh, bias, cd),
                 lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd)):
@@ -1958,7 +2074,7 @@ def test_wide_forward_mma_and_wgrad_f32_wrappers_take_plain_versions_on_cpu():
     dgc = torch.rand(2, 5, 6, 128, generator=torch.Generator().manual_seed(1)) * 2 - 1
     ref = bidir_layer_wgrad(dgc, parts32, hs_f, hs_b, 2)
     for got in (lstm_cuda.bilstm_wgrad_f32(dgc, parts32, hs_f, hs_b, 2),
-                lstm_cuda.bilstm_wgrad(dgc, parts32, hs_f, hs_b, 2, kernel="bilstm_wgrad")):
+                lstm_cuda.bilstm_wgrad(dgc, parts32, hs_f, hs_b, 2)):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert [f.launches for f in wrappers] == before
     with pytest.raises(RuntimeError, match="no autograd graph"):
@@ -2184,7 +2300,7 @@ def test_fwd_mma_plan_at_80_and_72():
     assert lstm_cuda.FWD_MMA_MAX_THREADS == 320 and (80 + 80) % 16 == (72 + 72) % 16 == 0
     assert 2 * lstm_cuda.mma_tiles(400, 5) == 100
     for E_parts, H in (([80], 80), ([40, 40], 80), ([72], 72)):
-        lstm_cuda.launch_plan(E_parts, H, bf16)
+        _cuda_core_fwd_plan(E_parts, H, bf16)
         assert lstm_cuda.fwd_kernel(E_parts, H, bf16) == "bilstm_fwd_mma"
     for E_parts, H in (([72], 80), ([80], 72), ([96], 96), ([48], 56), ([160], 80)):
         with pytest.raises(ValueError, match="bilstm_fwd_mma kernel takes bfloat16"):
@@ -2255,9 +2371,9 @@ def test_lite_mma_resident_wrapper_takes_plain_version_on_cpu(ny):
 
 @pytest.mark.parametrize("E_parts,H", [([80], 80), ([40, 40], 80), ([72], 72)])
 def test_fwd_mma_wrappers_at_80_and_72_take_plain_versions_on_cpu(E_parts, H):
-    """On the CPU the tensor-core forward at E = H = 80 and 72, the
-    dispatch and ``bilstm_fwd.cu`` asked for by name (both variants) run the
-    plain twin bit for bit and launch nothing."""
+    """On the CPU the tensor-core forward at E = H = 80 and 72 and the
+    dispatch (both variants) run the plain twin bit for bit and launch
+    nothing."""
     cpu, cd = torch.device("cpu"), torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(5, 12, E_parts, H, 3, cd, cpu)
     args = (parts, lengths, w_ih, w_hh, bias, cd)
@@ -2266,11 +2382,9 @@ def test_fwd_mma_wrappers_at_80_and_72_take_plain_versions_on_cpu(E_parts, H):
                 lstm_cuda.bilstm_layer_fwd_mma, lstm_cuda.bilstm_layer_fwd_train_mma)
     before = [f.launches for f in wrappers]
     for got in (lstm_cuda.bilstm_layer_fwd_train_mma(*args),
-                lstm_cuda.bilstm_layer_fwd_train(*args),
-                lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd")):
+                lstm_cuda.bilstm_layer_fwd_train(*args)):
         assert len(got) == 6 and all(torch.equal(a, b) for a, b in zip(got, want))
-    for got in (lstm_cuda.bilstm_layer_fwd_mma(*args), lstm_cuda.bilstm_layer_fwd(*args),
-                lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd")):
+    for got in (lstm_cuda.bilstm_layer_fwd_mma(*args), lstm_cuda.bilstm_layer_fwd(*args)):
         assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in wrappers] == before
 
@@ -2432,8 +2546,7 @@ def test_model_backward_reaches_every_lstm_weight_on_card(cuda_device):
     dispatch names)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     sweep = getattr(lstm_cuda, lstm_cuda.sweep_kernel([16], 16, torch.float32))
-    fwd = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd_train,
-           "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_train_f32}[
+    fwd = {"bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_train_f32}[
         lstm_cuda.fwd_kernel([16], 16, torch.float32)]
     wgrad = getattr(lstm_cuda, lstm_cuda.wgrad_kernel([16], 16, torch.float32))
     before = (fwd.launches, sweep.launches, wgrad.launches)
@@ -2498,8 +2611,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
     lengths = torch.randint(0, T + 1, (B,), generator=g, device=cuda_device, dtype=torch.int32)
     lengths[:3] = torch.tensor([0, 1, T])
     # the launch counts on the wrapper of the kernel the dispatch names
-    wrapper = {"bilstm_fwd": lstm_cuda.bilstm_layer_fwd,
-               "bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma,
+    wrapper = {"bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma,
                "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_f32}[
         lstm_cuda.fwd_kernel(E_parts, H, dtype)]
     before = wrapper.launches
@@ -2741,9 +2853,6 @@ def test_wgrad_f32_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     torch.cuda.synchronize()
     assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches) == (
         before[0], before[1] + 2)
-    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 1e-4)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
 
 
 @pytest.mark.cuda
@@ -2837,7 +2946,7 @@ def test_kernel_rejects_bad_operands_on_card(cuda_device):
     bias = torch.zeros(2, 4 * H, device=cuda_device)
     with pytest.raises(ValueError, match="bilstm kernel"):
         lstm_cuda.bilstm_layer_fwd(parts, lengths.long(), w_ih, w_hh, bias, torch.float32)
-    with pytest.raises(ValueError, match="bilstm kernel"):
+    with pytest.raises(ValueError, match="takes float32.*; bilstm_fwd_mma kernel takes bfloat16"):
         lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, torch.float16)
     # an operand that requires grad, under grad mode: the kernel's outputs
     # would carry no graph, so the wrapper refuses
@@ -3195,16 +3304,6 @@ def test_fwd_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 3e-2)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
-    if H > 64:
-        for fwd in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd):
-            with pytest.raises(ValueError, match="not asked for by name"):
-                fwd(*args, kernel="bilstm_fwd")
-        assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
-        return
-    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 3e-2)
-    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 3e-2)
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 2, 2]
 
 
 @pytest.mark.cuda
@@ -3234,9 +3333,6 @@ def test_wgrad_mma_matches_plain_on_card(cuda_device, T, E_parts, H, G, B):
     torch.cuda.synchronize()
     assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches) == (
         before[0], before[1] + 2)
-    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 3e-2)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
 
 
 @pytest.mark.cuda
@@ -3271,11 +3367,9 @@ def test_forward_and_wgrad_mma_edges_on_card(cuda_device):
         hs32 = torch.zeros(4, 10, 64, device=cuda_device)
         lstm_cuda.bilstm_wgrad_mma(torch.zeros(2, 4, 10, 256, device=cuda_device), f32[0],
                                    hs32, hs32, 2)
-    with pytest.raises(ValueError, match="no forward kernel named"):
-        lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, kernel="fast")
-    with pytest.raises(ValueError, match="no weight-gradient kernel named"):
-        lstm_cuda.bilstm_wgrad(torch.zeros(2, 4, 10, 256, dtype=cd, device=cuda_device), parts,
-                               hs.new_zeros(4, 10, 64), hs.new_zeros(4, 10, 64), 2, kernel="x")
+    with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel.*; bilstm_fwd_mma kernel"):
+        lstm_cuda.bilstm_layer_fwd((parts[0][..., :32].contiguous(),), lengths,
+                                   w_ih[..., :32].contiguous(), w_hh, bias, cd)
 
 
 @pytest.mark.cuda
@@ -3455,10 +3549,6 @@ def test_fwd_f32_matches_plain_on_card(cuda_device, monkeypatch, T, E_parts, H, 
     _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 1e-4)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 2, 2]
-    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 1e-4)
-    _close(lstm_cuda.bilstm_layer_fwd(*args, kernel="bilstm_fwd"), want[:4], 1e-4)
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 2, 2]
 
 
 @pytest.mark.cuda
@@ -3487,8 +3577,6 @@ def test_fwd_f32_edges_on_card(cuda_device):
     wide = layer_case(4, 10, [48], 96, 2, cd, cuda_device)
     with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
         lstm_cuda.bilstm_layer_fwd_train_f32(*wide[:5], cd)
-    with pytest.raises(ValueError, match="no forward kernel named"):
-        lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, cd, kernel="fast")
 
 
 @pytest.mark.cuda
@@ -3762,8 +3850,7 @@ def test_wgrad_mma_masked_gate_tile_matches_plain_on_card(cuda_device, E_parts, 
     128-row gate tile masked: 4H = 64, 192, 320) against their plain twin:
     dgc zero past each row's ragged length, as a sweep leaves it, 1 and 2
     parts, 1 and 5 weight groups, T = 1 (every h_prev past an end) and
-    1500. The dispatch hands ``bilstm_wgrad`` to it; ``bilstm_wgrad.cu`` by
-    name agrees too."""
+    1500. The dispatch hands ``bilstm_wgrad`` to it."""
     cd = torch.bfloat16
     assert lstm_cuda.wgrad_kernel(E_parts, H, cd) == "bilstm_wgrad_mma"
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
@@ -3776,10 +3863,9 @@ def test_wgrad_mma_masked_gate_tile_matches_plain_on_card(cuda_device, E_parts, 
     want = bidir_layer_wgrad(dgc, parts, hs_f, hs_b, G)
     before = (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches)
     _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G), want, 3e-2)
-    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 3e-2)
     torch.cuda.synchronize()
     assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_mma.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0], before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -4064,15 +4150,15 @@ def test_recurrence_wide_f32_matches_plain_on_card(cuda_device, H, D, G, B, T, m
 def test_recurrence_wide_f32_autograd_on_card(cuda_device, monkeypatch, H):
     """``fused_lstm_recurrence`` in f32 past 288 on the card, through the
     f32 tensor-core forward and sweep (one f32 fragment copy of the weights
-    built once for both) and the CUDA-core wgrad, never the cluster
-    kernels: outputs and the gradients of xg and w equal the CPU plain
-    path's within 1e-4 x max(1, max|ref|)."""
+    built once for both) and the f32 tensor-core wgrad, never the cluster
+    kernels or the CUDA-core wgrad: outputs and the gradients of xg and w
+    equal the CPU plain path's within 1e-4 x max(1, max|ref|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     T, D, B, G, cd = 10, 2, 12, 2, torch.float32
     cpu = recurrence_case(T, D, B, H, G, cd, torch.device("cpu"), "holes", seed=H)
     wrappers = (lstm_cuda.lstm_recurrence_fwd_wide_f32, lstm_cuda.lstm_recurrence_bwd_wide_f32,
                 lstm_cuda.lstm_recurrence_fwd, lstm_cuda.lstm_recurrence_bwd,
-                lstm_cuda.lstm_recurrence_wgrad)
+                lstm_cuda.lstm_recurrence_wgrad, lstm_cuda.lstm_recurrence_wgrad_f32)
     copies = []
     weights = lstm_cuda.recurrence_f32_weights
     monkeypatch.setattr(lstm_cuda, "recurrence_f32_weights",
@@ -4086,7 +4172,7 @@ def test_recurrence_wide_f32_autograd_on_card(cuda_device, monkeypatch, H):
         torch.autograd.backward(out, [dhs, dhn, dcn])
         got[dev.type] = [xg.grad.cpu(), w.grad.cpu(), *(o.detach().cpu() for o in out)]
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 0, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 0, 0, 0, 1]
     assert copies == [(D, G, H, 4 * H)]  # one copy for the forward and the sweep
     _close(got["cuda"], got["cpu"], 1e-4)
 
@@ -4545,10 +4631,11 @@ def test_default_backend_runs_the_op_past_288_on_card(cuda_device, dtype):
     f32 = dtype == torch.float32
     wide = ("lstm_recurrence_fwd_wide_f32", "lstm_recurrence_bwd_wide_f32") if f32 else \
         ("lstm_recurrence_fwd_wide_mma", "lstm_recurrence_bwd_wide_mma")
-    wgrad = "lstm_recurrence_wgrad" if f32 else "lstm_recurrence_wgrad_mma"
+    wgrad = "lstm_recurrence_wgrad_f32" if f32 else "lstm_recurrence_wgrad_mma"
     layer = [n for n in dir(lstm_cuda) if n.startswith("bilstm_")
              and isinstance(getattr(getattr(lstm_cuda, n), "launches", None), int)]
-    names = list(wide) + [wgrad, "lstm_recurrence_fwd", "lstm_recurrence_bwd"] + layer
+    names = list(wide) + [wgrad, "lstm_recurrence_fwd", "lstm_recurrence_bwd",
+                          "lstm_recurrence_wgrad"] + layer
     before = {n: getattr(lstm_cuda, n).launches for n in names}
     got = model_grads(cuda_device, dtype=dtype, embedding_size=320)
     torch.cuda.synchronize()
@@ -4731,11 +4818,6 @@ def test_fwd_f32_at_80_matches_plain_on_card(cuda_device, T, E_parts, G, B):
     _close(lstm_cuda.bilstm_layer_fwd(*args), want[:4], 1e-4)
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
-    for fwd in (lstm_cuda.bilstm_layer_fwd_train, lstm_cuda.bilstm_layer_fwd):
-        with pytest.raises(ValueError, match="not asked for by name where the f32 tensor-core"):
-            fwd(*args, kernel="bilstm_fwd")
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
 
 
 @pytest.mark.cuda
@@ -4875,7 +4957,7 @@ def test_fwd_mma_at_80_and_72_at_the_main_path_shape_on_card(cuda_device, H):
 def test_fwd_mma_at_80_rejects_bad_operands_on_card(cuda_device):
     """The tensor-core forward's wrappers refuse what its <80, 80> instance
     does not take, before any launch: f32 operands, E = 72 at H = 80 (no
-    instance; the dispatch keeps ``bilstm_fwd.cu`` there), a ``w_hh`` that
+    instance; no forward takes it since ``bilstm_fwd.cu`` went), a ``w_hh`` that
     is not contiguous; nothing falls back."""
     cd = torch.bfloat16
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(4, 10, [80], 80, 2, cd, cuda_device)
@@ -6741,19 +6823,23 @@ NARROW_WGRAD_SHAPES = (((8,), 16, 32), ((8, 8), 16, 32), ((16,), 16, 32), ((16, 
 @pytest.mark.parametrize("H,E", K8_FWD_SHAPES)
 def test_fwd_mma_takes_the_k8_shapes(H, E):
     """Each of the 11 shapes is a tensor-core forward instance where
-    ``bilstm_fwd.cu`` took it before (``launch_plan`` still does, so no
-    layer changes its route): one warp per 8 units (one warp a block at
+    the deleted ``bilstm_fwd.cu`` took it before (its plan,
+    ``_cuda_core_fwd_plan``, so no layer changed its route): one warp per 8 units (one warp a block at
     H = 8), the three-stage ring padded to an odd number of 16 bytes a row
     (16 elements where K % 16 == 8); the resident route takes the layer at
     its own widths, one input part and, where it halves into parts of 8,
     two."""
     bf16, K = torch.bfloat16, E + H
     for E_parts in ([E], [E // 2, E // 2]) if (E // 2) % 8 == 0 else ([E],):
-        lstm_cuda.launch_plan(E_parts, H, bf16)
+        _cuda_core_fwd_plan(E_parts, H, bf16)
         assert lstm_cuda.fwd_kernel(E_parts, H, bf16) == "bilstm_fwd_mma"
         assert lstm_cuda.fwd_mma_plan(E_parts, H, bf16) == (
             4 * H, 3 * 8 * (K + (16 if K % 16 else 8)) * 2)
-        assert lstm_cuda.fwd_kernel(E_parts, H, torch.float32) != "bilstm_fwd_mma"
+        if H % 16:  # no f32 forward at H % 16 == 8 since bilstm_fwd.cu went
+            with pytest.raises(ValueError, match="bilstm_fwd_f32 kernel takes float32"):
+                lstm_cuda.fwd_kernel(E_parts, H, torch.float32)
+        else:
+            assert lstm_cuda.fwd_kernel(E_parts, H, torch.float32) == "bilstm_fwd_f32"
     assert (K % 16 == 8) == ((H, E) in ((8, 16), (16, 8), (24, 48), (40, 80), (56, 112)))
 
 
@@ -6869,7 +6955,7 @@ def test_fwd_mma_k8_shapes_match_plain_on_card(cuda_device, T, H, E):
     values, 27 rows in 3 groups of 9 (a short last tile in each group), and
     rows 8-15 short of T; T = 30, 5 and 1. The dispatch hands the forward
     to it (its wrappers count the launches) and the two variants give the
-    same hs bits; ``bilstm_fwd.cu`` asked for by name agrees."""
+    same hs bits."""
     cd, B, G = torch.bfloat16, 27, 3
     E_parts = [E // 2] * 2 if E > H else [E]  # the stacked layers' two parts
     parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, E_parts, H, G, cd, cuda_device,
@@ -6887,9 +6973,6 @@ def test_fwd_mma_k8_shapes_match_plain_on_card(cuda_device, T, H, E):
     assert torch.equal(ev[0], got[0]) and torch.equal(ev[1], got[1])
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 0, 1, 1]
-    _close(lstm_cuda.bilstm_layer_fwd_train(*args, kernel="bilstm_fwd"), want, 3e-2)
-    torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [0, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -6922,8 +7005,7 @@ def test_wgrad_f32_narrow_tile_matches_plain_on_card(cuda_device, T, B, E_parts,
     (layer 0's grouping; 1 for the stacked layer), T = 1 (every h_prev past
     an end), and T = 3 at 400 rows (more splits than positions). The
     dispatch hands ``bilstm_wgrad`` to it (its wrapper counts the launches,
-    ``bilstm_wgrad.cu``'s stays), and ``bilstm_wgrad.cu`` asked for by name
-    agrees."""
+    the dispatcher's stays)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cd = torch.float32
     G = 3 if len(E_parts) == 1 else 1
@@ -6940,9 +7022,6 @@ def test_wgrad_f32_narrow_tile_matches_plain_on_card(cuda_device, T, B, E_parts,
     torch.cuda.synchronize()
     assert (lstm_cuda.bilstm_wgrad.launches, lstm_cuda.bilstm_wgrad_f32.launches) == (
         before[0], before[1] + 1)
-    _close(lstm_cuda.bilstm_wgrad(dgc, parts, hs_f, hs_b, G, kernel="bilstm_wgrad"), want, 1e-4)
-    torch.cuda.synchronize()
-    assert lstm_cuda.bilstm_wgrad.launches == before[0] + 1
 
 
 @pytest.mark.cuda
@@ -7004,6 +7083,181 @@ def test_f32_model_at_embedding_80_wgrad_on_card(cuda_device):
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
     want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=80)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
+            1.0, float(ref.abs().max())), name
+
+
+# ---- the bf16 sweep at H = 16-64 whatever (E + H) % 32, the op's f32 wgrad
+# the shapes the bf16 tensor-core sweep took from bilstm_bwd.cu (the first
+# two: the grid's layers at (16, (8,)) and the bf16 model at embedding 16's
+# stacked layer) and two more it takes at K % 32 == 16
+ANY_K_SWEEP_SHAPES = (([8], 16), ([16, 16], 16), ([8, 8], 32), ([24], 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [30, 5, 1])
+@pytest.mark.parametrize("E_parts,H,G,B,ny,final", [
+    ([8], 16, 5, 30, 2, True), ([8], 16, 3, 27, 0, False), ([16, 16], 16, 1, 13, 2, True),
+    ([16, 16], 16, 3, 27, 1, False), ([16, 16], 16, 1, 27, 0, True),
+    ([8, 8], 32, 3, 27, 2, False), ([8, 8], 32, 1, 9, 1, True), ([24], 48, 3, 27, 2, True),
+    ([24], 48, 5, 45, 0, False)])
+def test_sweep_mma_at_any_k_matches_plain_on_card(cuda_device, T, E_parts, H, G, B, ny, final):
+    """The bf16 tensor-core sweep at H % 16 == 0 with (E + H) % 32 == 16
+    (K = 24, 48, 48, 72, run to the next multiple of 32 over zero columns)
+    against its plain twin at 2^-7 x max(1, max|ref|): its <16, 32>
+    instance and the run-time <0, 0> build (``generic=True``), 1 and 2 input
+    parts, 0-2 dy streams, with and without final-state cotangents, 27 rows
+    in 3 groups of 9 (a short last tile in each), lengths mixing 0, 1, T and
+    random values, rows 8-15 short of T; T = 30, 5 and 1. The dispatch
+    hands ``bilstm_bwd`` to it (its wrapper counts the launches, the CUDA
+    cores' never)."""
+    cd = torch.bfloat16
+    assert lstm_cuda.sweep_kernel(E_parts, H, cd) == "bilstm_bwd_mma"
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, E_parts, H, G, cd,
+                                                                 cuda_device, seed=T + B + H)
+    lengths[8:16] = torch.clamp(lengths[8:16], max=max(1, T // 3))
+    hs_f, hs_b, _, _, cs_f, cs_b = bidir_layer(parts, lengths, w_ih, w_hh, bias, cd,
+                                               with_states=True)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:ny], dy[2:2 + ny],
+            dhn if final else None, dcn if final else None, cd)
+    want = bidir_layer_sweep(*args)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    before = (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches)
+    _close(flat(lstm_cuda.bilstm_bwd(*args)), flat(want), 2.0 ** -7)
+    _close(flat(lstm_cuda.bilstm_bwd_mma(*args, generic=True)), flat(want), 2.0 ** -7)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.bilstm_bwd.launches, lstm_cuda.bilstm_bwd_mma.launches) == (
+        before[0], before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_sweep_mma_at_16_at_the_main_path_shape_on_card(cuda_device):
+    """The stacked layer of the bf16 model at embedding 16 at its run
+    shape: E = 16 + 16, H = 16, 400 rows in one group, T = 1500, two dy
+    streams a direction, the main path's lengths: the <16, 32> instance and
+    the run-time build against the plain twin at 2^-7 x max(1, max|ref|),
+    each the same bits twice."""
+    cd, T, B, G = torch.bfloat16, 1500, 400, 1
+    parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(T, B, [16, 16], 16, G, cd,
+                                                                 cuda_device, seed=16)
+    lengths = _main_path_lengths(lengths, 5, T)
+    hs_f, hs_b, _, _, cs_f, cs_b = lstm_cuda.bilstm_layer_fwd_train(parts, lengths, w_ih, w_hh,
+                                                                    bias, cd)
+    args = (parts, lengths, w_ih, w_hh, bias, hs_f, hs_b, cs_f, cs_b, dy[:2], dy[2:], dhn, dcn,
+            cd)
+    flat = lambda r: r[0] + r[1] + r[2:]  # noqa: E731
+    want = flat(bidir_layer_sweep(*args))
+    for generic in (False, True):
+        got = flat(lstm_cuda.bilstm_bwd_mma(*args, generic=generic))
+        again = flat(lstm_cuda.bilstm_bwd_mma(*args, generic=generic))
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+        _close(got, want, 2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_bf16_model_at_embedding_16_on_card(cuda_device):
+    """The bf16 two-layer model at embedding 16: both layers' sweeps on the
+    tensor-core sweep (layer 0 at E = H = 16, the stacked layer at
+    16 + 16: K = 48), never ``bilstm_bwd.cu``; its gradients equal the CPU
+    plain path's at 2^-7 x max(1, max|grad|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.bfloat16
+    wrappers = (lstm_cuda.bilstm_bwd_mma, lstm_cuda.bilstm_bwd)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=16)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=16)
+    for name, grad in got.items():
+        ref = want[name].float()
+        assert float((grad.float().cpu() - ref).abs().max()) <= 2.0 ** -7 * max(
+            1.0, float(ref.abs().max())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [300, 2, 1])
+@pytest.mark.parametrize("G,B", [(1, 27), (5, 45)])
+@pytest.mark.parametrize("H", [32, 64, 96, 128, 288, 512])
+def test_recurrence_wgrad_f32_matches_plain_on_card(cuda_device, H, G, B, T):
+    """The f32 tensor-core recurrence wgrad (three tf32 passes) against its
+    plain twin at 1e-4 x max(1, max|ref|), at its dispatch tile and the
+    other one: H = 32 and 96 (a half-zero last column tile), 64, 128, 288
+    and 512, D = 2, one group of 27 rows and 5 of 9 (neither a whole 32-row
+    K-tile), T = 300, 2 (one row per batch row) and 1 (no row: zeros, no
+    launch). The dispatch hands ``lstm_recurrence_wgrad`` to it; the
+    CUDA-core kernel's count stays."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd, D = torch.float32, 2
+    assert lstm_cuda.recurrence_wgrad_kernel(H, cd) == "lstm_recurrence_wgrad_f32"
+    g = torch.Generator(device=cuda_device).manual_seed(T + H + B)
+    hs = torch.rand(T, D, B, H, generator=g, device=cuda_device) * 2 - 1
+    dxg = torch.rand(T, D, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    want = recurrence_wgrad(hs, dxg, G, cd)
+    before = (lstm_cuda.lstm_recurrence_wgrad.launches,
+              lstm_cuda.lstm_recurrence_wgrad_f32.launches)
+    _close([lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd)], [want], 1e-4)
+    for tile_n in lstm_cuda.REC_WGRAD_F32_BLOCKS:
+        _close([lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg, G, cd, tile_n=tile_n)], [want], 1e-4)
+    torch.cuda.synchronize()
+    launched = 3 if T > 1 else 0
+    assert (lstm_cuda.lstm_recurrence_wgrad.launches,
+            lstm_cuda.lstm_recurrence_wgrad_f32.launches) == (before[0], before[1] + launched)
+
+
+@pytest.mark.cuda
+def test_recurrence_wgrad_f32_edges_on_card(cuda_device):
+    """More splits than positions would allow (T = 3 at 400 rows in one
+    group: the split stops at the K-tiles), an empty batch (zeros, no
+    launch); bf16 and an unbuilt tile raise; the CUDA-core kernel asked for
+    by name agrees and counts on its own wrapper."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cd = torch.float32
+    T, D, B, H, G = 3, 1, 400, 64, 1
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    hs = torch.rand(T, D, B, H, generator=g, device=cuda_device) * 2 - 1
+    dxg = torch.rand(T, D, B, 4 * H, generator=g, device=cuda_device) * 2 - 1
+    want = recurrence_wgrad(hs, dxg, G, cd)
+    splits = lstm_cuda.recurrence_wgrad_f32_plan(T, B, D, G, H, lstm_cuda._sm_count(cuda_device))[2]
+    assert 1 <= splits <= -(-(T - 1) * B // 32)
+    _close([lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg, G, cd)], [want], 1e-4)
+    before = (lstm_cuda.lstm_recurrence_wgrad.launches,
+              lstm_cuda.lstm_recurrence_wgrad_f32.launches)
+    dw = lstm_cuda.lstm_recurrence_wgrad_f32(hs[:, :, :0].contiguous(),
+                                             dxg[:, :, :0].contiguous(), 1, cd)
+    torch.cuda.synchronize()
+    assert dw.shape == (D, 1, H, 4 * H) and not dw.any()
+    _close([lstm_cuda.lstm_recurrence_wgrad(hs, dxg, G, cd, kernel="lstm_recurrence_wgrad")],
+           [want], 1e-4)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.lstm_recurrence_wgrad.launches,
+            lstm_cuda.lstm_recurrence_wgrad_f32.launches) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="lstm_recurrence_wgrad_f32 kernel takes compute dtype"):
+        lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg, G, torch.bfloat16)
+    with pytest.raises(ValueError, match="built for 64 x"):
+        lstm_cuda.lstm_recurrence_wgrad_f32(hs, dxg, G, cd, tile_n=96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedding", [64, 128])
+def test_recurrence_backend_f32_wgrad_on_card(cuda_device, monkeypatch, embedding):
+    """The f32 two-layer model on the recurrence backend at embedding 64
+    and 128: both layers' weight gradients on the f32 tensor-core wgrad,
+    never the CUDA-core one; its gradients equal the CPU plain path's
+    (1e-4 x max(1, max|grad|))."""
+    from intrepppid_tpu_torch.ops import lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(lstm, "DEFAULT_BACKEND", "recurrence")
+    cd = torch.float32
+    wrappers = (lstm_cuda.lstm_recurrence_wgrad_f32, lstm_cuda.lstm_recurrence_wgrad,
+                lstm_cuda.bilstm_wgrad_f32)
+    before = [f.launches for f in wrappers]
+    got = model_grads(cuda_device, dtype=cd, embedding_size=embedding)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 0, 0]
+    want = model_grads(torch.device("cpu"), dtype=cd, embedding_size=embedding)
     for name, grad in got.items():
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(

@@ -19,8 +19,9 @@ unpadded layer.
 * two-layer models at embedding 48, 50, 80, 100, 112 and 272 against the
   JAX package (``utils/convert.py:from_jax_params``, dropout off): the
   forward and one train step's gradients, to the tolerance of the port's
-  other step tests (rtol 1e-4, atol 1e-5); the bf16 model at embedding 72
-  against JAX in bf16 (each gradient within 2^-6 x its own max);
+  other step tests (rtol 1e-4, atol 1e-5); the bf16 models at embedding 16,
+  56, 72 and 160 against JAX in bf16 (each gradient within 2^-6 x its own
+  max);
 * past 288 units a layer (embedding 300 and 320, one and two layers, f32)
   the default backend takes the recurrence op, where JAX's "auto" takes its
   scan: the forward and one train step's gradients against JAX at 1e-4 x
@@ -155,6 +156,42 @@ def _grid_plans(dtype):
     return plans
 
 
+def _cuda_core_fwd_plan(E_parts, H, dtype):
+    """ValueError for a shape the deleted ``csrc/bilstm_fwd.cu`` did not
+    take (its ``launch_plan``: 256 threads of H units, 4 rows a thread,
+    both weights resident in the compute dtype beside two f32 [x ; h]
+    tiles, at most 4 input chunks a thread)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec, E = 16 // size, sum(E_parts)
+    if H % 4 or H > 256 or any(e <= 0 or e % vec for e in E_parts):
+        raise ValueError(f"bilstm_fwd.cu took no E_parts={list(E_parts)}, H={H}")
+    groups = 256 // H
+    rows = 4 * groups
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    smem = a16(E * 4 * H * size) + a16(H * 4 * H * size) + 2 * rows * (E + H) * 4
+    if smem > lstm_cuda.SMEM_LIMIT or rows * E // vec > 4 * H * groups:
+        raise ValueError(f"bilstm_fwd.cu took no E_parts={list(E_parts)}, H={H}")
+
+
+def _cuda_core_wgrad_check(E_parts, H):
+    """ValueError for a shape the deleted ``csrc/bilstm_wgrad.cu`` did not
+    take (64-row gate tiles: 4H % 64 == 0; every width % 8 == 0)."""
+    if (4 * H) % 64 or any(w <= 0 or w % 8 for w in (*E_parts, H)):
+        raise ValueError(f"bilstm_wgrad.cu took no E_parts={list(E_parts)}, H={H}")
+
+
+def _set_back(real, name, took):
+    """``real`` (a dispatch) naming the deleted kernel ``name`` where it
+    refuses a shape and ``took(*shape)`` passes."""
+    def kernel(*shape):
+        try:
+            return real(*shape)
+        except ValueError:
+            took(*shape)
+            return name
+    return kernel
+
+
 def _with_cuda_core_sweep(m):
     """Set back, on the monkeypatch context ``m``, the lite-sweep and
     wide-forward dispatch of the trees that still had
@@ -162,18 +199,43 @@ def _with_cuda_core_sweep(m):
     tensor-core kernel takes, among those ``wide_check`` admits, named that
     CUDA-core kernel (the plans of a slice set back are those trees'
     plans)."""
-    real_lite, real_fwd = lstm_cuda.lite_kernel, lstm_cuda.wide_fwd_kernel
+    wide = lambda H, dtype: lstm_cuda.wide_check(H)  # noqa: E731
+    m.setattr(lstm_cuda, "lite_kernel", _set_back(lstm_cuda.lite_kernel, "bilstm_bwd_lite", wide))
+    m.setattr(lstm_cuda, "wide_fwd_kernel",
+              _set_back(lstm_cuda.wide_fwd_kernel, "bilstm_fwd_wide", wide))
 
-    def set_back(real, name):
-        def kernel(H, dtype):
-            try:
-                return real(H, dtype)
-            except ValueError:
-                lstm_cuda.wide_check(H)
-                return name
-        return kernel
-    m.setattr(lstm_cuda, "lite_kernel", set_back(real_lite, "bilstm_bwd_lite"))
-    m.setattr(lstm_cuda, "wide_fwd_kernel", set_back(real_fwd, "bilstm_fwd_wide"))
+
+def _with_cuda_core_resident(m):
+    """Set back, on the monkeypatch context ``m``, the resident forward's
+    and the weight gradients' dispatch of the trees that still had
+    ``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_wgrad.cu`` (a shape no
+    tensor-core kernel takes named that kernel where it took it), with the
+    bf16 sweep's rule of those trees (``BWD_MMA_ANY_K_WIDTHS`` = ()): their
+    plans, under which bf16 changes at ``ANY_K_SWEEP`` too."""
+    m.setattr(lstm_cuda, "fwd_kernel",
+              _set_back(lstm_cuda.fwd_kernel, "bilstm_fwd", _cuda_core_fwd_plan))
+    m.setattr(lstm_cuda, "wgrad_kernel",
+              _set_back(lstm_cuda.wgrad_kernel, "bilstm_wgrad",
+                        lambda E_parts, H, dtype: _cuda_core_wgrad_check(E_parts, H)))
+    m.setattr(lstm_cuda, "BWD_MMA_ANY_K_WIDTHS", ())
+
+
+# the bf16 resident layers whose sweep left bilstm_bwd.cu for the tensor-core
+# one when it took H = 16-64 at any E (layer 0 of 1-7 units; the stacked
+# layers of 9-16 units, the bf16 model at embedding 16)
+ANY_K_SWEEP = {("resident", 16, (8,)), ("resident", 16, (16, 16))}
+
+
+def _changes(before, after):
+    """``{(old kernel, new kernel): {(route, Hp, Ep), ..}}`` over the grid,
+    asserting that no layer changes its route or padded shape."""
+    changed = {}
+    for key, (route, Hp, Ep, kernels, *_) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        for a, b in zip(before[key][3], kernels):
+            if a != b:
+                changed.setdefault((a, b), set()).add((route, Hp, Ep))
+    return changed
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -268,12 +330,13 @@ def test_the_f32_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mon
     ``bilstm_fwd_f32`` where it was ``bilstm_fwd``, and the lite sweep at
     Hp = 96 (the stacked layers of 65-96 units and layer 0 of 81-96)
     ``bilstm_bwd_lite_f32_resident`` where it was ``bilstm_bwd_lite``. bf16
-    changes nothing."""
+    changes only the sweep of those trees at ``ANY_K_SWEEP``."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "FWD_F32_MAX_H", 64)
             m.setattr(lstm_cuda, "LITE_F32_RESIDENT_WIDTHS", ())
             _with_cuda_core_sweep(m)
+            _with_cuda_core_resident(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -290,7 +353,7 @@ def test_the_f32_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mon
             changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
             assert not diff, key
     if dtype == torch.bfloat16:
-        assert changed == {}
+        assert changed == {("bilstm_bwd", "bilstm_bwd_mma"): ANY_K_SWEEP}
         return
     assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_f32"),
                               ("bilstm_bwd_lite", "bilstm_bwd_lite_f32_resident")}
@@ -312,8 +375,8 @@ def test_the_bf16_sweep_at_h_mod_16_eq_8_changes_no_other_plan(dtype, monkeypatc
     one, in bf16: the resident sweep at Hp = 8, 24, 40, 56 (layer 0 and the
     stacked layer) and 72 (layer 0: the model at embedding 72) is
     ``bilstm_bwd_mma`` where it was ``bilstm_bwd``. f32 changes nothing, and
-    in bf16 the CUDA-core sweep keeps the resident layers at H = 16 whose
-    E + H is not a multiple of 32."""
+    in bf16 the CUDA-core sweep keeps no resident layer (since the
+    tensor-core sweep took H = 16 at any E: the next test)."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "BWD_MMA_ODD_WIDTHS", ())
@@ -343,7 +406,51 @@ def test_the_bf16_sweep_at_h_mod_16_eq_8_changes_no_other_plan(dtype, monkeypatc
     assert after["train layer 0", 72][3][1] == "bilstm_bwd_mma"
     assert after["train stacked", 72][:3] == ("wide", 96, (80, 80))
     assert {(Hp, Ep) for route, Hp, Ep, kernels in after.values()
-            if route == "resident" and kernels[1] == "bilstm_bwd"} == {(16, (8,)), (16, (16, 16))}
+            if route == "resident" and kernels[1] == "bilstm_bwd"} == set()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_bf16_sweep_at_any_k_changes_no_other_plan(dtype, monkeypatch):
+    """Over the grid above, every layer keeps the route and padded shape it
+    had before the bf16 tensor-core sweep took H = 16-64 whatever
+    (E + H) % 32 (the plans with ``BWD_MMA_ANY_K_WIDTHS`` = ()), and the
+    same kernel at every step, except one, in bf16: the resident sweep at
+    (Hp, Ep) = (16, (8,)) (layer 0 of 1-7 units) and (16, (16, 16)) (the
+    stacked layers of 9-16 units: the bf16 model at embedding 16) is
+    ``bilstm_bwd_mma`` where it was ``bilstm_bwd``. f32 changes nothing.
+    No layer of either dtype names ``bilstm_bwd``, ``bilstm_fwd`` or
+    ``bilstm_wgrad`` now, and in f32 the recurrence op's weight gradient is
+    the tensor-core one at every width it takes."""
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(lstm_cuda, "BWD_MMA_ANY_K_WIDTHS", ())
+            lstm_cuda._layer_plan.cache_clear()
+            before = _grid_plans(dtype)
+        lstm_cuda._layer_plan.cache_clear()
+        after = _grid_plans(dtype)
+    finally:
+        lstm_cuda._layer_plan.cache_clear()
+    assert before.keys() == after.keys() and len(after) == (
+        242 if dtype == torch.float32 else 286) * len(SHAPES)
+    changed = {}
+    for key, (route, Hp, Ep, kernels) in after.items():
+        assert (route, Hp, Ep) == before[key][:3], key
+        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
+        if diff:
+            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
+            assert not diff, key
+        assert not {"bilstm_bwd", "bilstm_fwd", "bilstm_wgrad"} & set(kernels), key
+    if dtype == torch.float32:
+        assert changed == {}
+        assert {lstm_cuda.recurrence_wgrad_kernel(H, dtype)
+                for H in range(32, lstm_cuda.REC_MAX_H + 1, 32)} == {"lstm_recurrence_wgrad_f32"}
+        return
+    assert changed == {("bilstm_bwd", "bilstm_bwd_mma"): {("resident", 16, (8,)),
+                                                          ("resident", 16, (16, 16))}}
+    assert {H for (what, H), p in after.items() if p[1:3] == (16, (8,))} == set(range(1, 8))
+    # the bf16 model at embedding 16: both layers on the tensor-core sweep
+    assert after["train layer 0", 16][3][1] == after["train stacked", 16][3][1] == "bilstm_bwd_mma"
+    assert after["train stacked", 16][1:3] == (16, (16, 16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -357,15 +464,18 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
     65-80 units) is ``bilstm_fwd_mma`` where it was ``bilstm_fwd``, and the
     lite sweep at Hp = 96 (the stacked layers of 65-96 units and layer 0 of
     81-96) ``bilstm_bwd_lite_mma_resident`` where it was
-    ``bilstm_bwd_lite``. f32 changes nothing; bf16 keeps ``bilstm_fwd.cu``
-    at no resident shape (since the tensor-core forward's instances with a
-    k8 tail took H % 16 == 8 up to 56 and H = 48 at E = 80 and 112)."""
+    ``bilstm_bwd_lite``; and the sweep of those trees at ``ANY_K_SWEEP``.
+    f32 changes nothing; bf16 keeps ``bilstm_fwd.cu`` at no resident shape
+    (since the tensor-core forward's instances with a k8 tail took
+    H % 16 == 8 up to 56 and H = 48 at E = 80 and 112; the source is gone
+    since)."""
     try:
         with monkeypatch.context() as m:
             m.setattr(lstm_cuda, "FWD_MMA_SHAPES",
                       tuple(s for s in lstm_cuda.FWD_MMA_SHAPES if s[0] <= lstm_cuda.MMA_MAX_H))
             m.setattr(lstm_cuda, "LITE_MMA_RESIDENT_WIDTHS", ())
             _with_cuda_core_sweep(m)
+            _with_cuda_core_resident(m)
             lstm_cuda._layer_plan.cache_clear()
             before = _grid_plans(dtype)
         lstm_cuda._layer_plan.cache_clear()
@@ -385,7 +495,9 @@ def test_the_bf16_resident_forward_and_lite_sweep_change_no_other_plan(dtype, mo
         assert changed == {}
         return
     assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_mma"),
-                              ("bilstm_bwd_lite", "bilstm_bwd_lite_mma_resident")}
+                              ("bilstm_bwd_lite", "bilstm_bwd_lite_mma_resident"),
+                              ("bilstm_bwd", "bilstm_bwd_mma")}
+    assert changed["bilstm_bwd", "bilstm_bwd_mma"] == ANY_K_SWEEP
     assert changed["bilstm_fwd", "bilstm_fwd_mma"] == {("resident", 80, (80,)),
                                                        ("resident", 72, (72,))}
     assert {(route, Hp) for route, Hp, _ in changed[
@@ -424,8 +536,10 @@ def test_the_k8_forward_narrow_wgrad_and_96_split_change_no_other_plan(dtype, mo
     ``bilstm_fwd``, and the wide layers at Hp = 96 take the weight
     gradients whole (``bilstm_wgrad_mma``) where they were split; in f32
     the wgrad at the 10 shapes of ``NARROW_WGRAD_SHAPES`` is
-    ``bilstm_wgrad_f32`` where it was ``bilstm_wgrad``. No layer of either
-    dtype names ``bilstm_fwd`` or ``bilstm_wgrad`` now."""
+    ``bilstm_wgrad_f32`` where it was ``bilstm_wgrad``; and in bf16 the
+    sweep of those trees at ``ANY_K_SWEEP`` (whose first layer changes its
+    forward too). No layer of either dtype names ``bilstm_fwd`` or
+    ``bilstm_wgrad`` now (both sources are gone)."""
     def plans():
         return {k: p + (lstm_cuda.wgrad_split(p[0], p[1], dtype),)
                 for k, p in _grid_plans(dtype).items()}
@@ -435,6 +549,7 @@ def test_the_k8_forward_narrow_wgrad_and_96_split_change_no_other_plan(dtype, mo
             m.setattr(lstm_cuda, "FWD_MMA_SHAPES", lstm_cuda.FWD_MMA_SHAPES[:9])
             m.setattr(lstm_cuda, "WGRAD_F32_H_STEP", 32)
             m.setattr(lstm_cuda, "WGRAD_SPLIT_PAST_H", 0)
+            _with_cuda_core_resident(m)
             lstm_cuda._layer_plan.cache_clear()
             before = plans()
         lstm_cuda._layer_plan.cache_clear()
@@ -443,15 +558,10 @@ def test_the_k8_forward_narrow_wgrad_and_96_split_change_no_other_plan(dtype, mo
         lstm_cuda._layer_plan.cache_clear()
     assert before.keys() == after.keys() and len(after) == (
         242 if dtype == torch.float32 else 286) * len(SHAPES)
-    changed = {}
+    changed = _changes(before, after)
     for key, (route, Hp, Ep, kernels, split) in after.items():
-        assert (route, Hp, Ep) == before[key][:3], key
-        diff = {(a, b) for a, b in zip(before[key][3], kernels) if a != b}
         if split != before[key][4]:
-            diff.add(("split", "whole"))
-        if diff:
-            changed.setdefault(diff.pop(), set()).add((route, Hp, Ep))
-            assert not diff, key
+            changed.setdefault(("split", "whole"), set()).add((route, Hp, Ep))
         assert "bilstm_fwd" not in kernels and "bilstm_wgrad" not in kernels, key
     if dtype == torch.float32:
         assert changed == {("bilstm_wgrad", "bilstm_wgrad_f32"): {
@@ -459,9 +569,11 @@ def test_the_k8_forward_narrow_wgrad_and_96_split_change_no_other_plan(dtype, mo
         assert after["train layer 0", 80][3] == ("bilstm_fwd_f32", "bilstm_bwd_f32_onestage",
                                                  "bilstm_wgrad_f32")
         return
-    assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_mma"), ("split", "whole")}
+    assert changed.keys() == {("bilstm_fwd", "bilstm_fwd_mma"), ("split", "whole"),
+                              ("bilstm_bwd", "bilstm_bwd_mma")}
     assert changed["bilstm_fwd", "bilstm_fwd_mma"] == {
         ("resident", Hp, Ep) for Hp, Ep in K8_FORWARD_SHAPES}
+    assert changed["bilstm_bwd", "bilstm_bwd_mma"] == ANY_K_SWEEP
     assert {(route, Hp) for route, Hp, _ in changed["split", "whole"]} == {("wide", 96)}
     # the model at embedding 56: both layers on the tensor-core forward
     assert after["train layer 0", 56][3][0] == after["train stacked", 56][3][0] == "bilstm_fwd_mma"
@@ -817,6 +929,17 @@ def test_two_layer_bf16_model_at_embedding_56_matches_jax():
     1e-5, every gradient within 2^-6 x max|ref| + 1e-7. On the CPU the port
     runs the kernels' plain twins along the same routes."""
     _bf16_model_matches_jax(56)
+
+
+def test_two_layer_bf16_model_at_embedding_16_matches_jax():
+    """The bf16 two-layer model at embedding 16 (layer 0 at E = H = 16; the
+    stacked layer at 16 + 16, K = 48, the tensor-core sweep's <16, 32>
+    shape, run to 64 over zero columns) against JAX in bf16, dropout off,
+    with the tolerances of the model at embedding 72: loss and aux to rtol
+    1e-5, every gradient within 2^-6 x max|ref| + 1e-7. On the CPU the port
+    runs the kernels' plain twins along the same routes."""
+    assert lstm_cuda.sweep_kernel([16, 16], 16, torch.bfloat16) == "bilstm_bwd_mma"
+    _bf16_model_matches_jax(16)
 
 
 def test_two_layer_bf16_model_at_embedding_160_matches_jax():
