@@ -81,6 +81,19 @@ exits non-zero with no result):
    then one step's gradients (and at embedding 80 an eval step)
    on the card held against the port's CPU plain path at a small size, in
    f32 and bf16 (also at embedding 80, two layers);
+5a. fit — ``Trainer.fit`` at the manuscript width (bf16, ``ranger21_xx``,
+   dropout on, SWA on, every checkpoint kept in a temporary directory):
+   3 epochs of 6 batches (5 of 80 pairs and one of 40, T = 1500), a val
+   pass of 2 batches each, then ``test("best")`` on 2 test batches, over an
+   in-memory data module (``FitModule``); each epoch's seconds, pairs/s
+   (beside phase train's step rate) and losses, each checkpoint save's ms
+   and bytes, the launch counts (the bf16 tensor-core kernels > 0, the
+   f32 and CUDA-core ones 0); ``test("best")`` against eval steps of a
+   fresh network loaded from the best checkpoint's ``state.pt``; and a
+   fresh trainer's ``fit`` from the epoch-0 checkpoint, whose final
+   weights and SWA average must lie within 2^-7 x max(1, max|w|) of the
+   straight run's (whether bit for bit is reported, and where not, the
+   parameters whose gradients differ between two identical steps);
 5b. widths — the layers the width repairs open (``ops/lstm_cuda.py:
    padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
    at H = 96; both layers at embedding 112 and 100, run at 128 with parts
@@ -117,7 +130,8 @@ exits non-zero with no result):
    both layers of the bf16 model at embedding 56, beside their bounds and
    cuDNN; every instance of ``K8_FWD_SHAPES`` (``k8_fwd``: both variants
    against the twin at 27 rows in 3 groups, T = 1 and 5, then the train
-   variant at the train shape; registers and spills) and the f32 wgrad's
+   variant at the train shape beside cuDNN bf16 at its E and H; registers
+   and spills) and the f32 wgrad's
    64-row tile at each of ``NARROW_WGRAD_SHAPES`` (``narrow_wgrad``:
    against the twin at T = 300 and at 27 rows, then at the train shape,
    beside its bounds at 495/3 and 67 and cuBLAS f32; each tile's
@@ -278,10 +292,12 @@ exits non-zero with no result):
     f32 tensor-core eval forward's launch count (the bf16 one's must stay
     0); file-to-file seconds and pairs/s, and where the time goes;
 11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
-    a main path and every key of the contract; the tensor-core forward and
-    lite sweep at 288 and the f32 forward, bf16 forward, sweep and wgrad at
-    H = 80 as ``h288_*`` and ``h80_*`` fields of their kernels' entries,
-    the bf16 forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
+    a main path and every key of the contract; the bf16 tensor-core
+    forward (both variants), sweep and wgrad with ``fit_launches``, their
+    launches in phase fit; the tensor-core forward and lite sweep at 288
+    and the f32 forward, bf16 forward, sweep and wgrad at H = 80 as
+    ``h288_*`` and ``h80_*`` fields of their kernels' entries, the bf16
+    forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
     tensor-core forward at H = 64 as an entry of its own, and its f32 one
     from the f32 recurrence-backend steps, and its f32 wgrad
     ``lstm_recurrence_wgrad_f32`` from them (its tiles at 64, 128 and 288,
@@ -1812,6 +1828,175 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
             "launches": {n: v for n, v in launches.items() if v}}
 
 
+# ------------------------------------------------------------------ fit
+class FitModule:
+    """In-memory data module with the three iterators ``Trainer.fit`` and
+    ``test`` read, from ``quintuplet_batch`` at the train shape: ``train``
+    batches an epoch (the last one of ``tail`` pairs, so a short batch runs
+    as it is), then ``val`` and ``test`` batches; the same batches every
+    epoch."""
+
+    def __init__(self, rng, train=6, pairs=PAIRS_TRAIN, tail=PAIRS_TRAIN // 2, val=2, test=2,
+                 T=T_TRAIN):
+        self.train = [quintuplet_batch(rng, pairs, T) for _ in range(train - 1)]
+        self.train.append(quintuplet_batch(rng, tail, T))
+        self.val = [quintuplet_batch(rng, pairs, T) for _ in range(val)]
+        self.test = [quintuplet_batch(rng, pairs, T) for _ in range(test)]
+
+    def train_batches(self, epoch):
+        return iter(self.train)
+
+    def val_batches(self):
+        return iter(self.val)
+
+    def test_batches(self):
+        return iter(self.test)
+
+
+def fit_network(dev, steps_per_epoch, epochs):
+    """The manuscript network in bf16 with ``ranger21_xx``, dropout at its
+    defaults."""
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+
+    return intrepppid_network(steps_per_epoch=steps_per_epoch, num_epochs=epochs,
+                              compute_dtype=torch.bfloat16, optimizer_type="ranger21_xx",
+                              device=dev, seed=SEED)
+
+
+def fit_trainer(dev, chkpt_dir, steps_per_epoch, epochs):
+    """``fit_network``'s ``Trainer`` with SWA on and every checkpoint kept."""
+    from intrepppid_tpu_torch.train import Trainer
+
+    return Trainer(fit_network(dev, steps_per_epoch, epochs), chkpt_dir, "intrepppid",
+                   seed=SEED, keep_all_checkpoints=True)
+
+
+def nondeterministic_grads(dev, batch) -> list:
+    """The parameters whose gradients differ between two identical bf16
+    steps (same weights, batch and dropout stream) on the card."""
+    grads = []
+    for _ in range(2):
+        net = fit_network(dev, 100, 3).train()
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        loss, _ = net.step(tb, torch.Generator(device=dev).manual_seed(0), train=True)
+        loss.backward()
+        grads.append({n: p.grad for n, p in net.named_parameters() if p.grad is not None})
+    return [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+
+
+def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
+    """``Trainer.fit`` at the manuscript width (bf16, ``ranger21_xx``,
+    dropout on, SWA on, every checkpoint kept in a temporary directory) for
+    ``epochs`` epochs of 6 batches (5 of 80 pairs and one of 40, T = 1500),
+    2 val batches an epoch, then ``test("best")`` on 2 test batches: the
+    main path, its counts set to 0 just before ``fit`` and read just after
+    ``test``. Each epoch's clock, pairs/s and losses from the trainer's
+    logger, and each ``_save_epoch``'s ms and bytes. Checks: every loss
+    finite; the bf16 tensor-core kernels launched and no f32 or CUDA-core
+    one (phase train's lists); ``test("best")`` equal to eval steps of a
+    fresh network loaded from the best checkpoint's ``state.pt``; and a
+    fresh trainer's ``fit`` from the epoch-0 checkpoint (in a copy of the
+    directory) ending at the straight run's weights and SWA average within
+    2^-7 x max(1, max|w|)."""
+    import shutil
+
+    dm = FitModule(np.random.default_rng(SEED + 29))
+    steps = len(dm.train)
+    counters = train_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        trainer = fit_trainer(dev, tmp / "straight", steps, epochs)
+        saves = []
+        save_epoch = trainer._save_epoch
+
+        def timed_save(epoch, val_loss):
+            t = time.perf_counter()
+            path = save_epoch(epoch, val_loss)
+            saves.append({"epoch": epoch, "ms": (time.perf_counter() - t) * 1e3,
+                          "bytes": sum(f.stat().st_size for f in path.iterdir())})
+            return path
+
+        trainer._save_epoch = timed_save
+        for fn in counters.values():
+            fn.launches = 0
+        trainer.fit(dm)
+        test = trainer.test(dm, "best")
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        logs = trainer.loggers[0].metrics
+
+        def col(key):
+            return [e["value"] for e in logs[key]]
+
+        losses = {k: col(k) for k in ("train_loss_step", "train_loss", "val_loss")}
+        losses["test_loss"] = [test["test_loss"]]
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            raise AssertionError(f"a fit loss is not finite: {losses}")
+        new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
+               "bilstm_wgrad_mma")
+        old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
+               "bilstm_bwd_f32_onestage", "bilstm_wgrad", "bilstm_wgrad_f32",
+               "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32")
+        missing = [n for n in new if launches[n] <= 0]
+        ran_old = [n for n in old if launches[n] != 0]
+        if missing or ran_old:
+            raise AssertionError(f"fit never launched {missing}, or ran {ran_old}")
+
+        # test("best") against eval steps of a fresh network loaded by hand
+        best = trainer.checkpoints.best_checkpoint()
+        fresh = fit_network(dev, steps, epochs)
+        fresh.load_state_dict(torch.load(best / "state.pt", map_location=dev,
+                                         weights_only=True)["params"])
+        sums, rows = {}, 0
+        for i, batch in enumerate(dm.test_batches()):
+            aux = trainer.eval_step(batch, i, fresh)
+            n = len(batch["label"])
+            rows += n
+            for k, v in aux.items():
+                sums[k] = sums.get(k, 0.0) + float(v) * n
+        hand = {f"test_{k}": v / rows for k, v in sums.items()}
+        test_err = max(abs(test[k] - hand[k]) for k in hand)
+        if sorted(hand) != sorted(test) or not all(
+                abs(test[k] - hand[k]) <= 1e-6 * max(1.0, abs(hand[k])) for k in hand):
+            raise AssertionError(f"test('best') {test} differs from the hand-loaded eval {hand}")
+
+        # resume from epoch 0 in a copy of the run's directory
+        epoch0 = next(p.name for p in (tmp / "straight").iterdir()
+                      if p.name.startswith("intrepppid-epoch=00-"))
+        shutil.copytree(tmp / "straight", tmp / "resumed")
+        resumed = fit_trainer(dev, tmp / "resumed", steps, epochs)
+        t = time.perf_counter()
+        resumed.fit(dm, checkpoint_path=tmp / "resumed" / epoch0)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        pairs = [tuple({n: p.detach() for n, p in net.named_parameters()}
+                       for net in (resumed.net, trainer.net)),
+                 (resumed.swa.avg_params, trainer.swa.avg_params)]
+        resume_err = max(scaled_err(a[n], b[n]) for a, b in pairs for n in b)
+        bitwise = all(torch.equal(a[n], b[n]) for a, b in pairs for n in b)
+        if resumed.swa.n_averaged != trainer.swa.n_averaged or not resume_err <= 2.0 ** -7:
+            raise AssertionError(f"the resumed fit ends {resume_err} from the straight one")
+        differing = [] if bitwise else nondeterministic_grads(dev, dm.train[0])
+        checkpoints = sorted(p.name for p in (tmp / "straight").iterdir())
+        state_keys = sorted(torch.load(best / "state.pt", map_location="cpu",
+                                       weights_only=True))
+    pairs_epoch = sum(len(b["label"]) for b in dm.train)
+    out = {"phase": "fit", "epochs": epochs, "steps_per_epoch": steps,
+           "pairs_per_epoch": pairs_epoch, "T": dm.train[0]["p1"].shape[1], "dtype": "bfloat16",
+           "optimizer": "ranger21_xx", "dropout": 0.3, "swa_n_averaged": trainer.swa.n_averaged,
+           "epoch_time_s": col("epoch_time_s"), "seq_pairs_per_s": col("seq_pairs_per_s"),
+           "train_step_pairs_per_s": train_pairs_per_s,
+           "train_loss": losses["train_loss"], "val_loss": losses["val_loss"],
+           "train_loss_step": losses["train_loss_step"], "saves": saves,
+           "checkpoints": checkpoints, "state_keys": state_keys,
+           "launches": launches, "test_best": test, "test_vs_hand_max_abs_err": test_err,
+           "resume_max_scaled_err": resume_err, "resume_bitwise": bitwise,
+           "resume_s": resume_s, "resume_tol": "2^-7 x max(1, max|w|)",
+           "nondeterministic_grads": differing}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------------ widths
 # the train-variant wrapper of each resident forward kernel
 RESIDENT_TRAIN_FWD = {"bilstm_fwd_mma": "bilstm_layer_fwd_train_mma",
@@ -2506,8 +2691,9 @@ def k8_fwd_instances(dev) -> dict:
     ending at T // 3 at most (3e-2 x max(1, max|ref|); the same bits
     twice); then the train variant at the train shape (400 rows, T = 1500,
     full lengths; 5 groups where E <= H, 1 where E > H), timed twice,
-    beside its bound at the bf16 rate; each instance's registers and
-    spill-store bytes from the build's ``-Xptxas -v``."""
+    beside its bound at the bf16 rate and cuDNN's one-layer bf16 training
+    forward at the same E and H (``cudnn_stack_times``); each instance's
+    registers and spill-store bytes from the build's ``-Xptxas -v``."""
     from intrepppid_tpu_torch.ops import lstm_cuda as L
 
     cd, out = torch.bfloat16, {}
@@ -2556,6 +2742,7 @@ def k8_fwd_instances(dev) -> dict:
         args = (parts, lengths, w_ih, w_hh, bias, cd)
         o["ms"] = time_ms(lambda: L.bilstm_layer_fwd_train(*args), 3)
         o["ms_again"] = time_ms(lambda: L.bilstm_layer_fwd_train(*args), 3)
+        o["library_ms"] = cudnn_stack_times(dev, cd, E=E, H=H, layers=1)["cudnn_fwd_ms"]
         work = train_layer_work(E, H, 2, 1, G=G)["fwd"]
         o["bound_ms"], o["bound_by"] = bound([(*work, kernel_peak(cd, "bilstm_fwd_mma"))])
         o.update({"B": B_TRAIN, "T": T_TRAIN, "G": G})
@@ -4617,6 +4804,7 @@ def main() -> int:
     serve = run(phase_serve, dev)
     tk = run(phase_train_kernel, dev)
     train = run(phase_train, dev)
+    fit = run(phase_fit, dev, train["pairs_per_s"])
     widths = run(phase_widths, dev)
     wk = run(phase_wide_kernel, dev)
     scaled = run(phase_train_scaled, dev)
@@ -4997,13 +5185,14 @@ def main() -> int:
             if key == "fwd":
                 k8 = widths["k8_fwd"]
                 entry.update({f"k8_{k}": {s_: o[k] for s_, o in k8.items()} for k in (
-                    "ms", "ms_again", "bound_ms", "registers", "spill_store_bytes",
-                    "k8_tail")})
+                    "ms", "ms_again", "bound_ms", "library_ms", "registers",
+                    "spill_store_bytes", "k8_tail")})
                 entry["k8_max_abs_err"] = max(v for o in k8.values()
                                               for v in o["max_abs_err"].values())
                 entry["work"] += ("; k8_*: each instance that took a shape from the deleted "
                                   "bilstm_fwd.cu (keys hH_eE), the train variant at 400 rows, "
-                                  "T=1500, timed twice, its registers and spills; "
+                                  "T=1500, timed twice, its registers and spills, library: "
+                                  "cuDNN one-layer bf16 training forward at E, H; "
                                   "k8_max_abs_err over both variants at 27 rows in 3 groups, "
                                   "T = 1 and 5")
         else:
@@ -5841,6 +6030,16 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
+    # the bf16 tensor-core kernels of phase fit's epochs, val and test passes
+    fit_names = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
+                 "bilstm_wgrad_mma")
+    for k in kernels:
+        if k["name"] in fit_names:
+            k["fit_launches"] = fit["launches"][k["name"]]
+            k["work"] += ("; fit_launches: phase fit (3 epochs of 6 steps at the manuscript "
+                          "width, bf16, each with a val pass, then test('best'))")
+    if sorted(k["name"] for k in kernels if "fit_launches" in k) != sorted(fit_names):
+        raise AssertionError("the kernels line lacks an entry of the fit path's kernels")
     if len(kernels) != 37 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -4,8 +4,9 @@ NVIDIA H100.
 The JAX package ``intrepppid_tpu`` stays the reference that each part of
 the port is held against; the port imports nothing of it. Ported so far:
 the scoring server (``python -m intrepppid_tpu_torch serve start``), the
-offline scorer (``infer from_csv``) and the quintuplet train step
-(``train.Trainer``). The bidirectional-LSTM layer and the time-major
+offline scorer (``infer from_csv``) and the training loop
+(``train.Trainer``: the quintuplet step, ``fit`` with checkpoints and SWA,
+``resume``, ``test``). The bidirectional-LSTM layer and the time-major
 recurrence op run as hand-written CUDA kernels (``csrc/``: forward,
 backward sweep and weight gradients of each). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.

@@ -159,7 +159,8 @@ class Infer:
         FASTA sequence library; writes itx_id,probability CSV.
 
         ``weights_path`` is a reference-layout ``.ckpt`` (what ``python -m
-        intrepppid_tpu export torch_ckpt`` writes). ``--device`` picks the
+        intrepppid_tpu export torch_ckpt`` writes) or a checkpoint
+        directory of the port's ``Trainer.fit``. ``--device`` picks the
         card (``cuda``, ``cuda:1``) or ``cpu``."""
         import torch
 
@@ -167,7 +168,7 @@ class Infer:
         from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
         from intrepppid_tpu_torch.data.utils import repeat_pad_rows
         from intrepppid_tpu_torch.models.factory import intrepppid_network
-        from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint
+        from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint, load_weights
         from intrepppid_tpu_torch.utils.device import resolve_device
 
         if int(n_data_parallel) > 1:
@@ -190,7 +191,7 @@ class Infer:
             use_projection=True,
             device=dev,
         ).eval()
-        net.load_state_dict(load_reference_checkpoint(weights_path, rnn_num_layers))
+        load_weights(net, load_reference_checkpoint(weights_path, rnn_num_layers))
         batch_size = int(batch_size)
 
         def encode(seq: str) -> list:

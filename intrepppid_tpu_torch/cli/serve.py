@@ -1,7 +1,8 @@
 """Serving CLI: ``python -m intrepppid_tpu_torch serve start``
 (`intrepppid_tpu/cli/serve.py:18-114` counterpart).
 
-Loads one reference-layout ``.ckpt`` and a SentencePiece model resident and
+Loads one reference-layout ``.ckpt`` (or a checkpoint directory of the
+port's ``Trainer.fit``) and a SentencePiece model resident and
 answers ``POST /score`` with pair probabilities. The network is always built
 with ``use_projection=True``, as the reference's infer CLI does, in f32. It
 runs on ``--device`` (default ``cuda``); there is no silent CPU fallback.
@@ -42,7 +43,8 @@ class Serve:
         """Start the scoring server (blocks; Ctrl-C to stop).
 
         ``weights_path`` is a reference-layout ``.ckpt`` (what ``python -m
-        intrepppid_tpu export torch_ckpt`` writes). ``--warmup`` (default
+        intrepppid_tpu export torch_ckpt`` writes) or a checkpoint
+        directory of the port's ``Trainer.fit``. ``--warmup`` (default
         on) runs one full batch of each batch rung at the largest length
         bucket before listening, so the first request does not pay the
         kernel build. ``--coalesce`` (default on) merges concurrent

@@ -27,7 +27,9 @@ whose leading axis stacks separate tensors of the reference (the port's
 LSTM weights stack the two directions): unit norms and centralisation then
 act on each slice alone, as they do on the reference's per-direction
 tensors. A group's ``update_scale`` (default 1) multiplies the final update
-``new_p - p``, as the JAX trainer's ``lr_scale`` does.
+``new_p - p``, as the JAX trainer's ``lr_scale`` does. The step count
+travels in ``state_dict()`` (``"count"``), as it does in the JAX
+package's optax state, so a resumed run keeps its schedule.
 """
 from __future__ import annotations
 
@@ -140,6 +142,19 @@ class Ranger21(torch.optim.Optimizer):
             warmdown_start_pct=warmdown_start_pct, warmdown_min_lr=warmdown_min_lr,
         )
         self.count = 0
+
+    def state_dict(self) -> dict:
+        """The optimizer's state with its step count, which sets the warmup,
+        the bias corrections and which moment a step updates."""
+        state = super().state_dict()
+        state["count"] = self.count
+        return state
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+        self.count = int(count)
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -29,6 +29,7 @@ import torch
 
 from intrepppid_tpu_torch.data.ppi_oma import default_buckets
 from intrepppid_tpu_torch.data.utils import repeat_pad_rows
+from intrepppid_tpu_torch.utils.convert import load_weights
 
 
 class ScoringEngine:
@@ -60,7 +61,7 @@ class ScoringEngine:
             validate(net.cfg.encoder.vocab_size)
         self.net = net.eval()
         if params is not None:
-            self.net.load_state_dict(params)
+            load_weights(self.net, params)
         self.device = next(net.parameters()).device
         self.spp = tokenizer
         self.trunc_len = int(trunc_len)
@@ -135,7 +136,7 @@ class ScoringEngine:
         it waits for an in-flight ``score_pairs`` on the engine lock and
         keeps the token cache (tokenization is model-independent)."""
         with self._lock:
-            self.net.load_state_dict(params)
+            load_weights(self.net, params)
 
     # ------------------------------------------------------------- preload
     def preload(self, named_seqs) -> int:

@@ -23,8 +23,11 @@ Three layouts meet here:
 
 * the port's own ``state_dict`` (``models/awd_lstm.py`` names).
 
-The JAX package's orbax checkpoint directories need JAX and orbax to read;
-convert them with ``python -m intrepppid_tpu export torch_ckpt`` first.
+``load_reference_checkpoint`` also takes a checkpoint directory of the
+port's own ``Trainer.fit`` (``train/checkpoint.py``: a ``state.pt`` inside),
+as the JAX package's loader takes its own. The JAX package's orbax
+checkpoint directories need JAX and orbax to read; convert them with
+``python -m intrepppid_tpu export torch_ckpt`` first.
 """
 from __future__ import annotations
 
@@ -155,11 +158,19 @@ def save_reference_checkpoint(params: Params, path) -> None:
 
 
 def load_reference_checkpoint(path, rnn_num_layers: int = 2) -> Dict[str, torch.Tensor]:
-    """Read a reference-layout ``.ckpt`` into the port's ``state_dict``.
+    """Read a reference-layout ``.ckpt``, or a checkpoint directory of the
+    port's ``Trainer.fit``, into the port's ``state_dict`` (CPU tensors).
 
     Only tensors and plain containers are unpickled (``weights_only``)."""
     path = Path(path)
     if path.is_dir():
+        from intrepppid_tpu_torch.train.checkpoint import (
+            is_checkpoint,
+            load_params_from_checkpoint,
+        )
+
+        if is_checkpoint(path):
+            return load_params_from_checkpoint(path)
         raise ValueError(
             f"{path} is a directory — an orbax checkpoint of the JAX package, "
             "which needs JAX to read. Convert it first with `python -m "
@@ -169,3 +180,16 @@ def load_reference_checkpoint(path, rnn_num_layers: int = 2) -> Dict[str, torch.
     chkpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = chkpt.get("state_dict", chkpt)
     return from_jax_params(reference_to_params(sd, rnn_num_layers))
+
+
+def load_weights(net: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Load ``state_dict`` into ``net`` strictly, except that a state without
+    ``triplet_projection`` (a network trained with ``use_projection=False``)
+    keeps the net's own: the scorers build the net with one, as the
+    reference does, and the pair forward never reads it. The JAX package's
+    params tree simply lacks it there."""
+    missing, unexpected = net.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.startswith("triplet_projection.")]
+    if missing or unexpected:
+        raise RuntimeError(f"the weights do not fit the network: missing {missing}, "
+                           f"unexpected {unexpected}")

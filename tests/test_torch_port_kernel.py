@@ -6,7 +6,8 @@ tensor-core forwards (the wide one too), sweeps and weight gradients, and
 the f32 tensor-core forward, sweeps and weight gradients in three tf32
 passes, with the dispatch that picks them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
-autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), without JAX.
+autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), and on the
+card the training loop's ``fit`` and resume, without JAX.
 
 On the CPU each wrapper takes its plain version. The tests marked ``cuda``
 hold each CUDA kernel against its plain version on the card and skip
@@ -7262,3 +7263,75 @@ def test_recurrence_backend_f32_wgrad_on_card(cuda_device, monkeypatch, embeddin
         ref = want[name].float()
         assert float((grad.float().cpu() - ref).abs().max()) <= 1e-4 * max(
             1.0, float(ref.abs().max())), name
+
+
+# ------------------------------------------------------- the training loop
+class TinyModule:
+    """``fit``'s three iterators over seeded quintuplet batches (vocab 38,
+    T = 32): 3 batches of 4 pairs and a tail of 2 an epoch, 2 val, 2 test."""
+
+    def __init__(self, seed=0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+
+        def batch(B):
+            out = {}
+            for k in ("p1", "p2", "anchor", "positive", "negative"):
+                a = rng.integers(1, 38, (B, 32)).astype(np.int32)
+                for i, n in enumerate(rng.integers(1, 33, B)):
+                    a[i, n:] = 0
+                out[k] = a
+            out["label"] = (np.arange(B) % 2).astype(np.int32)
+            return out
+
+        self.train = [batch(4) for _ in range(3)] + [batch(2)]
+        self.val, self.test = [batch(4) for _ in range(2)], [batch(4) for _ in range(2)]
+
+    def train_batches(self, epoch):
+        return iter(self.train)
+
+    def val_batches(self):
+        return iter(self.val)
+
+    def test_batches(self):
+        return iter(self.test)
+
+
+@pytest.mark.cuda
+def test_fit_and_resume_on_card(cuda_device, tmp_path):
+    """A 3-epoch ``fit`` of a tiny bf16 model (embedding 16, SWA on, every
+    checkpoint kept) on the card's tensor-core kernels, then a fresh
+    trainer's ``fit`` from the epoch-0 checkpoint in a copy of the
+    directory: its final weights and SWA average within 2^-7 x max(1,
+    max|w|) of the straight run's, and ``test("best")`` finite."""
+    import shutil
+
+    from intrepppid_tpu_torch.train import Trainer
+
+    def trainer(path):
+        net = intrepppid_network(4, vocab_size=38, embedding_size=16, num_epochs=3,
+                                 compute_dtype=torch.bfloat16, device=cuda_device, seed=0)
+        return Trainer(net, path, "m", seed=0, keep_all_checkpoints=True)
+
+    dm = TinyModule()
+    wrappers = (lstm_cuda.bilstm_layer_fwd_train_mma, lstm_cuda.bilstm_bwd_mma,
+                lstm_cuda.bilstm_wgrad_mma, lstm_cuda.bilstm_layer_fwd_mma)
+    before = [f.launches for f in wrappers]
+    straight = trainer(tmp_path / "a")
+    straight.fit(dm)
+    test = straight.test(dm, "best")
+    torch.cuda.synchronize()
+    assert all(f.launches > b for f, b in zip(wrappers, before))
+    assert all(torch.isfinite(torch.tensor(v)) for v in test.values())
+    epoch0 = next((tmp_path / "a").glob("m-epoch=00-*")).name
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    resumed = trainer(tmp_path / "b")
+    resumed.fit(dm, checkpoint_path=tmp_path / "b" / epoch0)
+    assert resumed.global_step == straight.global_step == 12
+    assert resumed.swa.n_averaged == straight.swa.n_averaged == 2
+    got = dict(resumed.net.named_parameters())
+    for name, p in straight.net.named_parameters():
+        for a, b in ((got[name], p), (resumed.swa.avg_params[name], straight.swa.avg_params[name])):
+            err = float((a.detach().float() - b.detach().float()).abs().max())
+            assert err <= 2.0 ** -7 * max(1.0, float(b.detach().abs().max())), name
