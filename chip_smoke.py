@@ -94,7 +94,22 @@ exits non-zero with no result):
    weights and SWA average must lie within 2^-7 x max(1, max|w|) of the
    straight run's (whether bit for bit is reported, and where not, the
    parameters whose gradients differ between two identical steps);
-5b. widths — the layers the width repairs open (``ops/lstm_cuda.py:
+5b. train_cli — ``train e2e_rnn_triplet`` through the CLI dispatcher at the
+   manuscript width (bf16, the CLI's defaults: ``ranger21``, dropout 0.3,
+   SWA), 3 epochs of 440 pairs (5 x 80 + 40), T up to 1500, on seeded
+   synthetic tables in the INTREPPPID schema (1,200 sequences of 50-1,500
+   residues, ~300 orthologue groups; ``synthetic_tables`` stands in for
+   ``ppi_oma.read_split`` during the phase, as the card's machine has no
+   ``h5py``), tokenised batch by batch with ``golden_spm.model`` (subword
+   sampling on in training) through the data module and the input
+   pipeline; then ``eval e2e_rnn_triplet`` on the best checkpoint's test
+   split, which must equal the run's ``test_results`` within 1e-6 x max(1,
+   |v|); every loss finite; the bf16 tensor-core kernels launched (the
+   eval forward in ``eval``), no f32 or CUDA-core one; the run's
+   artifacts; each epoch's seconds and pairs/s beside phase fit's and
+   phase train's, the seconds each epoch's ``_make_batch`` took on the
+   host, the T buckets and the eval command's seconds;
+5c. widths — the layers the width repairs open (``ops/lstm_cuda.py:
    padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
    at H = 96; both layers at embedding 112 and 100, run at 128 with parts
    of 112; layer 0 at embedding 50, run at H = 64 with E = 56 in f32 and
@@ -293,8 +308,8 @@ exits non-zero with no result):
     0); file-to-file seconds and pairs/s, and where the time goes;
 11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
     a main path and every key of the contract; the bf16 tensor-core
-    forward (both variants), sweep and wgrad with ``fit_launches``, their
-    launches in phase fit; the tensor-core forward and lite sweep at 288
+    forward (both variants), sweep and wgrad with ``fit_launches`` and
+    ``train_cli_launches``, their launches in phases fit and train_cli; the tensor-core forward and lite sweep at 288
     and the f32 forward, bf16 forward, sweep and wgrad at H = 80 as
     ``h288_*`` and ``h80_*`` fields of their kernels' entries, the bf16
     forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
@@ -1829,6 +1844,15 @@ def train_grad_check(dev, pairs=8, T=64, dtype=torch.float32, eval_step=False, e
 
 
 # ------------------------------------------------------------------ fit
+# the bf16 tensor-core kernels of the manuscript width's training path, and
+# the f32 and CUDA-core kernels that path must never launch
+FIT_BF16 = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
+            "bilstm_wgrad_mma")
+FIT_NEVER = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
+             "bilstm_bwd_f32_onestage", "bilstm_wgrad", "bilstm_wgrad_f32",
+             "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32")
+
+
 class FitModule:
     """In-memory data module with the three iterators ``Trainer.fit`` and
     ``test`` read, from ``quintuplet_batch`` at the train shape: ``train``
@@ -1932,13 +1956,8 @@ def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
         losses["test_loss"] = [test["test_loss"]]
         if not all(np.isfinite(v).all() for v in losses.values()):
             raise AssertionError(f"a fit loss is not finite: {losses}")
-        new = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
-               "bilstm_wgrad_mma")
-        old = ("bilstm_layer_fwd_train", "bilstm_layer_fwd", "bilstm_bwd", "bilstm_bwd_f32",
-               "bilstm_bwd_f32_onestage", "bilstm_wgrad", "bilstm_wgrad_f32",
-               "bilstm_layer_fwd_f32", "bilstm_layer_fwd_train_f32")
-        missing = [n for n in new if launches[n] <= 0]
-        ran_old = [n for n in old if launches[n] != 0]
+        missing = [n for n in FIT_BF16 if launches[n] <= 0]
+        ran_old = [n for n in FIT_NEVER if launches[n] != 0]
         if missing or ran_old:
             raise AssertionError(f"fit never launched {missing}, or ran {ran_old}")
 
@@ -1993,6 +2012,156 @@ def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
            "resume_max_scaled_err": resume_err, "resume_bitwise": bitwise,
            "resume_s": resume_s, "resume_tol": "2^-7 x max(1, max|w|)",
            "nondeterministic_grads": differing}
+    emit(out)
+    return out
+
+
+# -------------------------------------------------------------- train_cli
+def synthetic_tables(seed=SEED + 30, n_seqs=1200, n_groups=300, splits=(("train", 440),
+                                                                         ("val", 160),
+                                                                         ("test", 160))):
+    """Seeded tables in the INTREPPPID schema, as ``ppi_oma.read_split``
+    returns them: ``n_seqs`` sequences over the 20 amino acids with lengths
+    uniform in [50, 1500] (as phase serve's), ``n_groups`` orthologue groups
+    of 2-6 members (one member absent from the sequences), and per split
+    interactions of two random proteins, half positive, each with an anchor
+    drawn from a group and that group's id (one anchor absent from the
+    sequences)."""
+    rng = np.random.default_rng(seed)
+    names = [f"P{i:05d}" for i in range(n_seqs)]
+    sequences = {n: "".join(rng.choice(list(AAS), int(rng.integers(50, 1501))))
+                 for n in names}
+    members = {1000 + g: [names[i] for i in rng.choice(n_seqs, int(rng.integers(2, 7)),
+                                                       replace=False)]
+               for g in range(n_groups)}
+    members[1000].append("MISSING_MEMBER")
+    groups = sorted(members)
+    tables = {}
+    for split, n in splits:
+        rows = []
+        for i in range(n):
+            p1, p2 = (names[j] for j in rng.choice(n_seqs, 2, replace=False))
+            g = groups[int(rng.integers(len(groups)))]
+            anchor = members[g][int(rng.integers(len(members[g])))]
+            rows.append((p1, p2, anchor, g, bool(i % 2 == 0)))
+        tables[split] = rows
+    p1, p2, _, g, label = tables["train"][0]
+    tables["train"][0] = (p1, p2, "MISSING_ANCHOR", g, label)
+    return tables, sequences, members
+
+
+def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
+    """``python -m intrepppid_tpu_torch train e2e_rnn_triplet`` (through the
+    CLI dispatcher) at the manuscript width, then ``eval e2e_rnn_triplet``
+    on the best checkpoint's test split. The card's machine has no ``h5py``,
+    so the one table-reading function (``ppi_oma.read_split``) is replaced,
+    for this phase only, by ``synthetic_tables``; everything after the read
+    is the port's own code: the data module tokenising every batch (5 x 80
+    sequences, subword sampling on in training, 4 tokenizer threads) and
+    bucketing it, the input pipeline, ``fit`` with SWA, ``test("best")``,
+    the run's artifacts. The counts are set to 0 just before each command
+    and read just after. Checks: every logged loss finite; the bf16
+    tensor-core kernels launched in training and the eval forward in
+    ``eval``, no f32 or CUDA-core kernel in either; the run directory's
+    artifacts; ``eval``'s metrics equal to the run's ``test_results``
+    within 1e-6 x max(1, |v|) (the same checkpoint, batches and kernels).
+    Each epoch's clock and pairs/s beside phase fit's (pre-tokenised) and
+    phase train's step rate, the host seconds each epoch spent in
+    ``_make_batch``, the T buckets, the eval command's seconds."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.data import ppi_oma
+
+    tables, sequences, members = synthetic_tables()
+    read_split, make_batch = ppi_oma.read_split, ppi_oma.IntrepppidDataModule._make_batch
+    made = []  # (split, host seconds, T) of every batch the data module made
+
+    def timed_make_batch(self, ds, indices, sampling):
+        t = time.perf_counter()
+        batch = make_batch(self, ds, indices, sampling)
+        made.append((ds.split, time.perf_counter() - t, int(batch["p1"].shape[1])))
+        return batch
+
+    ppi_oma.read_split = lambda path, c_type, split: (list(tables[split]), sequences, members)
+    ppi_oma.IntrepppidDataModule._make_batch = timed_make_batch
+    counters = train_counters()
+    spm = ROOT / "tests" / "fixtures" / "golden_spm.model"
+    data = ["--ppi_dataset_path", "synthetic.h5", "--sentencepiece_path", str(spm),
+            "--c_type", "3"]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            trainer, test = cli(["train", "e2e_rnn_triplet", *data, "--num_epochs", str(epochs),
+                                 "--batch_size", str(PAIRS_TRAIN), "--vocab_size", "258",
+                                 "--trunc_len", str(T_TRAIN), "--workers", "4", "--seed",
+                                 str(SEED), "--precision", "bf16", "--log_path",
+                                 str(tmp / "logs")])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+            launches = {name: fn.launches for name, fn in counters.items()}
+            run = tmp / "logs" / trainer.checkpoints.model_name
+            best = trainer.checkpoints.best_checkpoint()
+            artifacts = sorted(str(p.relative_to(run)) for p in run.rglob("*")
+                               if p.parent in (run, run / "chkpt"))
+            metrics = json.loads((run / "metrics.json").read_text())
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            evaluated = cli(["eval", "e2e_rnn_triplet", "--checkpoint_path", str(best), *data,
+                             "--split", "test", "--batch_size", str(PAIRS_TRAIN), "--workers",
+                             "4", "--seed", str(SEED), "--out_path", str(tmp / "eval.json")])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t
+            eval_launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        ppi_oma.read_split = read_split
+        ppi_oma.IntrepppidDataModule._make_batch = make_batch
+
+    def col(key):
+        return [e["value"] for e in metrics[key]]
+
+    losses = {k: col(k) for k in ("train_loss_step", "train_loss", "val_loss", "test_loss")}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"a train_cli loss is not finite: {losses}")
+    missing = [n for n in FIT_BF16 if launches[n] <= 0]
+    ran_old = [n for n, c in (*launches.items(), *eval_launches.items())
+               if n in FIT_NEVER and c != 0]
+    if missing or ran_old or eval_launches["bilstm_layer_fwd_mma"] <= 0:
+        raise AssertionError(f"train_cli never launched {missing} (eval forward "
+                             f"{eval_launches['bilstm_layer_fwd_mma']}), or ran {ran_old}")
+    want = {"hyperparams.json", "metrics.json", "chkpt", "chkpt/best.json"}
+    epoch_dirs = [a for a in artifacts if a.startswith("chkpt/") and "-epoch=" in a]
+    if not want <= set(artifacts) or not epoch_dirs:
+        raise AssertionError(f"the run directory lacks an artifact: {artifacts}")
+    (test_results,) = metrics["test_results"]
+    if sorted(evaluated) != sorted(test_results) or sorted(test) != sorted(test_results):
+        raise AssertionError(f"eval's metrics {sorted(evaluated)} are not the run's")
+    eval_err = max(abs(evaluated[k] - v) for k, v in test_results.items())
+    if not all(abs(evaluated[k] - v) <= 1e-6 * max(1.0, abs(v))
+               for k, v in test_results.items()):
+        raise AssertionError(f"eval {evaluated} differs from the run's test {test_results}")
+    steps = trainer.net.steps_per_epoch
+    train_made = [(s, T) for split, s, T in made if split == "train"]
+    out = {"phase": "train_cli", "epochs": epochs, "steps_per_epoch": steps,
+           "pairs_per_epoch": len(tables["train"]), "dtype": "bfloat16",
+           "optimizer": trainer.net.optimizer_type, "dropout": 0.3, "workers": 4,
+           "sequences": len(sequences), "groups": len(members),
+           "interactions": {k: len(v) for k, v in tables.items()},
+           "epoch_time_s": col("epoch_time_s"), "seq_pairs_per_s": col("seq_pairs_per_s"),
+           "fit_epoch_time_s": fit["epoch_time_s"], "fit_seq_pairs_per_s": fit["seq_pairs_per_s"],
+           "train_step_pairs_per_s": train_pairs_per_s,
+           "make_batch_s_by_epoch": [sum(s for s, _ in train_made[e * steps:(e + 1) * steps])
+                                     for e in range(epochs)],
+           "make_batch_s_eval": sum(s for split, s, _ in made if split != "train"),
+           "train_buckets": [T for _, T in train_made],
+           "eval_buckets": [T for split, _, T in made if split != "train"],
+           "train_command_s": train_s, "eval_command_s": eval_s,
+           "train_loss": losses["train_loss"], "val_loss": losses["val_loss"],
+           "test_results": test_results, "eval": evaluated, "eval_vs_test_max_abs_err": eval_err,
+           "eval_tol": "1e-6 x max(1, |v|)", "best": best.name, "artifacts": artifacts,
+           "launches": launches, "eval_launches": eval_launches}
     emit(out)
     return out
 
@@ -4805,6 +4974,7 @@ def main() -> int:
     tk = run(phase_train_kernel, dev)
     train = run(phase_train, dev)
     fit = run(phase_fit, dev, train["pairs_per_s"])
+    tcli = run(phase_train_cli, dev, train["pairs_per_s"], fit)
     widths = run(phase_widths, dev)
     wk = run(phase_wide_kernel, dev)
     scaled = run(phase_train_scaled, dev)
@@ -6030,16 +6200,25 @@ def main() -> int:
                 "max|ref|)); launches: the f32 model at embedding 320, one layer, on the "
                 "default backend (steps_launches: its timed steps)",
     })
-    # the bf16 tensor-core kernels of phase fit's epochs, val and test passes
-    fit_names = ("bilstm_layer_fwd_train_mma", "bilstm_layer_fwd_mma", "bilstm_bwd_mma",
-                 "bilstm_wgrad_mma")
+    # the bf16 tensor-core kernels of phase fit's epochs, val and test passes,
+    # and of phase train_cli's run (training, val, test) and eval command
     for k in kernels:
-        if k["name"] in fit_names:
+        if k["name"] in FIT_BF16:
             k["fit_launches"] = fit["launches"][k["name"]]
+            k["train_cli_launches"] = tcli["launches"][k["name"]]
+            k["train_cli_eval_launches"] = tcli["eval_launches"][k["name"]]
             k["work"] += ("; fit_launches: phase fit (3 epochs of 6 steps at the manuscript "
-                          "width, bf16, each with a val pass, then test('best'))")
-    if sorted(k["name"] for k in kernels if "fit_launches" in k) != sorted(fit_names):
-        raise AssertionError("the kernels line lacks an entry of the fit path's kernels")
+                          "width, bf16, each with a val pass, then test('best')); "
+                          "train_cli_launches: phase train_cli (train e2e_rnn_triplet, 3 "
+                          "epochs of 6 steps on tokenised synthetic HDF5 tables, each with a "
+                          "val pass, then test('best')), train_cli_eval_launches: its eval "
+                          "command")
+    for key in ("fit_launches", "train_cli_launches"):
+        entries = [k for k in kernels if key in k]
+        if sorted(k["name"] for k in entries) != sorted(FIT_BF16) or any(
+                k[key] <= 0 for k in entries):
+            raise AssertionError(f"the kernels line lacks an entry of the path's kernels, or "
+                                 f"one never launched there: {key}")
     if len(kernels) != 37 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -1,0 +1,120 @@
+"""Train CLI: ``python -m intrepppid_tpu_torch train e2e_rnn_triplet``
+(`intrepppid_tpu/cli/train.py` counterpart; the reference's
+`intrepppid/cli/train.py:25-121`).
+
+The JAX CLI's flags and defaults, its run-name scheme
+``YY.DDD-HH.MM-<word>-<word>`` and artifact layout
+(``log_path/<run>/{hyperparams.json,metrics.json,chkpt/}``), plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels). ``--precision bf16|fp32`` picks the compute dtype.
+
+Not ported, and refused by name: ``--n_data_parallel`` above 1 (ROADMAP.md
+A6), ``--profile_dir`` (A7) and ``--variational_dropout true`` (A4). The
+JAX CLI's ``steps_per_dispatch`` answered the TPU host link and is left
+out.
+"""
+from __future__ import annotations
+
+from datetime import datetime
+from pathlib import Path
+from typing import Optional, Union
+
+from intrepppid_tpu_torch.utils.run_name import generate_passphrase
+
+
+def refuse_unported(n_data_parallel, profile_dir, variational_dropout) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of each option
+    the port does not have yet."""
+    if n_data_parallel is not None and int(n_data_parallel) > 1:
+        raise NotImplementedError(
+            "n_data_parallel > 1 is not ported: the port runs on one card (ROADMAP.md A6)")
+    if profile_dir is not None:
+        raise NotImplementedError("profile_dir is not ported (ROADMAP.md A7)")
+    if variational_dropout:
+        raise NotImplementedError("variational_dropout is not ported (ROADMAP.md A4)")
+
+
+class Train:
+    @staticmethod
+    def e2e_rnn_triplet(
+        ppi_dataset_path: Path,
+        sentencepiece_path: Path,
+        c_type: int,
+        num_epochs: int,
+        batch_size: int,
+        seed: Optional[int] = None,
+        vocab_size: int = 250,
+        trunc_len: int = 1500,
+        embedding_size: int = 64,
+        rnn_num_layers: int = 2,
+        rnn_dropout_rate: float = 0.3,
+        variational_dropout: bool = False,
+        bi_reduce: str = "last",
+        workers: int = 4,
+        embedding_droprate: float = 0.3,
+        do_rate: float = 0.3,
+        log_path: Path = Path("./logs/e2e_rnn_triplet"),
+        encoder_only_steps: int = -1,
+        classifier_warm_up: int = -1,
+        beta_classifier: float = 4.0,
+        lr: Union[float, str] = 1e-2,
+        use_projection: bool = False,
+        checkpoint_path: Optional[Path] = None,
+        optimizer_type: str = "ranger21",
+        precision: str = "bf16",
+        n_data_parallel: Optional[int] = None,
+        cache_eval_tokens: bool = False,
+        profile_dir: Optional[Path] = None,
+        device: str = "cuda",
+    ):
+        """Train INTREPPPID end-to-end: AWD-LSTM encoder + MLP classifier
+        with the orthologue triplet task, on ``--device`` (the card by
+        default). ``--checkpoint_path`` resumes from a checkpoint directory
+        of an earlier run."""
+        from intrepppid_tpu_torch.train.e2e_triplet import train_e2e_rnn_triplet
+        from intrepppid_tpu_torch.utils.device import resolve_device
+
+        refuse_unported(n_data_parallel, profile_dir, variational_dropout)
+        # before any file is read or written: a machine without a card
+        # refuses here
+        dev = resolve_device(device)
+
+        dt = datetime.now().strftime("%y.%j-%H.%M")
+        model_name = f"{dt}-{generate_passphrase(2, '-')}"
+
+        log_path = Path(log_path)
+        chkpt_dir = log_path / model_name / "chkpt"
+        hyperparams_path = log_path / model_name / "hyperparams.json"
+
+        return train_e2e_rnn_triplet(
+            vocab_size=vocab_size,
+            trunc_len=trunc_len,
+            embedding_size=embedding_size,
+            rnn_num_layers=rnn_num_layers,
+            rnn_dropout_rate=rnn_dropout_rate,
+            variational_dropout=variational_dropout,
+            bi_reduce=bi_reduce,
+            ppi_dataset_path=ppi_dataset_path,
+            sentencepiece_path=sentencepiece_path,
+            log_path=log_path,
+            hyperparams_path=hyperparams_path,
+            chkpt_dir=chkpt_dir,
+            c_type=c_type,
+            model_name=model_name,
+            workers=workers,
+            embedding_droprate=embedding_droprate,
+            do_rate=do_rate,
+            num_epochs=num_epochs,
+            batch_size=batch_size,
+            encoder_only_steps=encoder_only_steps,
+            classifier_warm_up=classifier_warm_up,
+            beta_classifier=beta_classifier,
+            lr=lr,
+            checkpoint_path=checkpoint_path,
+            use_projection=use_projection,
+            optimizer_type=optimizer_type,
+            seed=seed,
+            precision=precision,
+            cache_eval_tokens=cache_eval_tokens,
+            device=dev,
+        )

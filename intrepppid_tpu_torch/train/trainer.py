@@ -20,15 +20,21 @@ steps, ``fit`` with per-epoch checkpoints, SWA and logs, ``resume`` and
 
 The step loop never waits on the device: step losses and batch metrics stay
 device scalars until the epoch's end, where each moves to the host once. A
-short last batch runs at its own size (the JAX trainer pads it with
-weight-0 rows to keep one compiled shape; the losses, gradients and metrics
-are the same). TPU-only machinery is not carried over: the bit-plane wire
-format of token ids, ``steps_per_dispatch``, the mesh sharding and the
-prefetch threads. ``profile_dir`` comes with ``utils/profiling.py``.
+training epoch's batches come through the input pipeline
+(``data/pipeline.py``), as in the JAX trainer: a tokenising thread
+(``host_prefetch``, where more than one CPU is available) feeding pinned
+copies on a side stream (``prefetch_to_device``), ``prefetch`` batches
+ahead; val and test passes are not prefetched. A short last batch runs at
+its own size (the JAX trainer pads it with weight-0 rows to keep one
+compiled shape; the losses, gradients and metrics are the same). TPU-only
+machinery is not carried over: the bit-plane wire format of token ids,
+``steps_per_dispatch`` and the mesh sharding. ``profile_dir`` comes with
+``utils/profiling.py`` (ROADMAP.md A7).
 """
 from __future__ import annotations
 
 import copy
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Iterable, Mapping, Optional
@@ -36,6 +42,7 @@ from typing import Any, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from intrepppid_tpu_torch.data.pipeline import host_prefetch, prefetch_to_device
 from intrepppid_tpu_torch.models.factory import IntrepppidNetwork
 from intrepppid_tpu_torch.models.triplet import TOKEN_KEYS
 from intrepppid_tpu_torch.optim import Ranger21, get_lr_schedule, make_optimizer
@@ -54,6 +61,20 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
     step, the same stream for the same pair."""
     mixed = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + 1) % (1 << 63)
     return torch.Generator(device=device).manual_seed(mixed)
+
+
+def _available_cpus() -> int:
+    """CPUs available to this process (sched affinity), not the machine."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def _use_host_prefetch() -> bool:
+    """Whether tokenisation gets its own pipeline thread: only with more
+    than one CPU available (`intrepppid_tpu/train/trainer.py:162-174`)."""
+    return _available_cpus() > 1
 
 
 def batch_rows(batch: Mapping[str, Any]) -> int:
@@ -90,7 +111,8 @@ class Trainer:
     """Drives ``net.step`` with its optimizer on the model's device.
 
     ``chkpt_dir`` is where ``fit`` writes its checkpoints (required by
-    ``fit``; the steps alone need none). ``swa=None`` turns SWA off."""
+    ``fit``; the steps alone need none). ``swa=None`` turns SWA off.
+    ``prefetch`` is the input pipeline's depth in a training epoch."""
 
     def __init__(
         self,
@@ -104,6 +126,7 @@ class Trainer:
         swa: Optional[SWAConfig] = SWAConfig(),
         use_swa_lr_scale: bool = False,
         keep_all_checkpoints: bool = False,
+        prefetch: int = 2,
     ):
         self.net = net
         self.seed = seed
@@ -117,6 +140,7 @@ class Trainer:
         )
         self.swa = SWAState(swa, net.num_epochs) if swa is not None else None
         self.use_swa_lr_scale = use_swa_lr_scale
+        self.prefetch = prefetch
         self.lr_schedule = get_lr_schedule(
             net.optimizer_type, net.lr, net.steps_per_epoch, net.num_epochs
         )
@@ -137,12 +161,13 @@ class Trainer:
 
     def to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Numpy or tensor batch -> tensors on the model's device (token ids
-        as int64, pinned for the copy when the device is a card)."""
+        as int64, pinned for the copy when the device is a card). Tensors
+        already on the device (``prefetch_to_device``'s) pass through."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
             if k in TOKEN_KEYS:
-                t = t.long()
+                t = t.long()  # no copy when it is int64 already
             if self.device.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
@@ -270,13 +295,20 @@ class Trainer:
             acc = EpochAccumulator()
             n_samples = 0
             pending: list = []  # (aux, step) of the logged steps
-            for batch in data_module.train_batches(epoch):
-                rows = batch_rows(batch)
-                aux = self.train_step(batch, lr_scale)
-                n_samples += rows
-                acc.add(aux, rows)
-                if self.global_step % self.log_every_n_steps == 0:
-                    pending.append((aux, self.global_step))
+            host_iter = data_module.train_batches(epoch)
+            if _use_host_prefetch():
+                host_iter = host_prefetch(host_iter, size=self.prefetch)
+            batches = prefetch_to_device(host_iter, self.device, size=self.prefetch)
+            try:
+                for batch in batches:
+                    rows = batch_rows(batch)
+                    aux = self.train_step(batch, lr_scale)
+                    n_samples += rows
+                    acc.add(aux, rows)
+                    if self.global_step % self.log_every_n_steps == 0:
+                        pending.append((aux, self.global_step))
+            finally:
+                batches.close()  # an abandoned epoch stops its threads
             # the epoch's one wait on the device: the step logs, then the
             # weighted means (where the epoch clock stops)
             self._flush_step_logs(pending, lr_scale)

@@ -34,7 +34,8 @@ def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"lstm.py", "lstm_cuda.py", "lstm_stack.py", "dropout.py", "losses.py",
             "metrics.py", "ranger21.py", "schedules.py", "trainer.py", "engine.py",
-            "lstm_recurrence.py", "infer.py", "chip_smoke.py"} <= names
+            "lstm_recurrence.py", "infer.py", "chip_smoke.py", "pipeline.py", "ppi_oma.py",
+            "e2e_triplet.py", "train.py", "evaluate.py", "run_name.py"} <= names
 
 
 def kernel_source(name):
@@ -269,3 +270,24 @@ def test_infer_default_device_is_the_card(monkeypatch, tmp_path):
         Infer.from_csv(tmp_path / "pairs.csv", tmp_path / "seqs.fasta", tmp_path / "m.ckpt",
                        tmp_path / "spm.model", out)
     assert not out.exists()
+
+
+@pytest.mark.parametrize("command", ["train", "eval"])
+def test_train_and_eval_default_device_is_the_card(monkeypatch, tmp_path, command):
+    """``train e2e_rnn_triplet`` and ``eval e2e_rnn_triplet`` without
+    ``--device cpu`` refuse on a machine without a card, before they read or
+    write any file (the run directories included)."""
+    from intrepppid_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    data = ["--ppi_dataset_path", str(tmp_path / "none.h5"), "--sentencepiece_path",
+            str(tmp_path / "none.model"), "--c_type", "3"]
+    args = {"train": ["train", "e2e_rnn_triplet", *data, "--num_epochs", "1",
+                      "--batch_size", "8", "--log_path", str(tmp_path / "logs")],
+            "eval": ["eval", "e2e_rnn_triplet", *data, "--checkpoint_path",
+                     str(tmp_path / "run" / "chkpt" / "best"),
+                     "--out_path", str(tmp_path / "out.json")]}[command]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    assert not any(tmp_path.iterdir())

@@ -6,8 +6,9 @@ tensor-core forwards (the wide one too), sweeps and weight gradients, and
 the f32 tensor-core forward, sweeps and weight gradients in three tf32
 passes, with the dispatch that picks them), their plain
 PyTorch versions (``ops/lstm.py``, ``ops/lstm_recurrence.py``) and the
-autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), and on the
-card the training loop's ``fit`` and resume, without JAX.
+autograd units (``ops/lstm_stack.py``, ``FusedLSTMRecurrence``), the input
+pipeline (``data/pipeline.py``) through ``fit``, and on the card the training
+loop's ``fit`` and resume, without JAX.
 
 On the CPU each wrapper takes its plain version. The tests marked ``cuda``
 hold each CUDA kernel against its plain version on the card and skip
@@ -7335,3 +7336,64 @@ def test_fit_and_resume_on_card(cuda_device, tmp_path):
         for a, b in ((got[name], p), (resumed.swa.avg_params[name], straight.swa.avg_params[name])):
             err = float((a.detach().float() - b.detach().float()).abs().max())
             assert err <= 2.0 ** -7 * max(1.0, float(b.detach().abs().max())), name
+
+
+# ------------------------------------------------------ the input pipeline
+def pipeline_vs_hand_loop(device, tmp_path, epochs=2):
+    """``fit`` (batches through ``host_prefetch`` and ``prefetch_to_device``,
+    with val passes) and a hand loop of ``train_step`` over the same numpy
+    batches, from the same weights, SWA off: their final weights."""
+    from intrepppid_tpu_torch.train import Trainer
+
+    def trainer(path):
+        net = intrepppid_network(4, vocab_size=38, embedding_size=16, num_epochs=epochs,
+                                 compute_dtype=torch.bfloat16, device=device, seed=0)
+        return Trainer(net, path, "m", seed=0, swa=None)
+
+    dm = TinyModule()
+    fitted = trainer(tmp_path / "fit")
+    fitted.fit(dm)
+    hand = trainer(tmp_path / "hand")
+    hand.init_state()
+    for epoch in range(epochs):
+        for batch in dm.train_batches(epoch):
+            hand.train_step(batch)
+    assert fitted.global_step == hand.global_step == 4 * epochs
+    want = dict(hand.net.named_parameters())
+    return [(name, p, want[name]) for name, p in fitted.net.named_parameters()]
+
+
+def test_fit_through_the_pipeline_equals_a_hand_loop(tmp_path):
+    for name, got, want in pipeline_vs_hand_loop(torch.device("cpu"), tmp_path):
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_fit_through_the_pipeline_equals_a_hand_loop_on_card(cuda_device, tmp_path):
+    for name, got, want in pipeline_vs_hand_loop(cuda_device, tmp_path):
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_card(cuda_device):
+    """Pinned copies on a side stream: each batch on the card equals the
+    host batch (ids widened to int64), and the consumer's stream has waited
+    for its copy, so work queued on it reads the batch whole."""
+    import numpy as np
+
+    from intrepppid_tpu_torch.data.pipeline import host_prefetch, prefetch_to_device
+
+    dm = TinyModule(seed=3)
+    consumer = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(consumer):
+        got = []
+        for batch in prefetch_to_device(host_prefetch(iter(dm.train)), cuda_device, size=2):
+            assert all(t.device.type == "cuda" for t in batch.values())
+            got.append({k: (t * 1).cpu() for k, t in batch.items()})  # work on the consumer
+    assert len(got) == len(dm.train)
+    for g, w in zip(got, dm.train):
+        assert sorted(g) == sorted(w)
+        for k, v in w.items():
+            want = torch.from_numpy(np.asarray(v))
+            assert g[k].dtype == (torch.int64 if k != "label" else want.dtype), k
+            assert torch.equal(g[k], want.to(g[k].dtype)), k
