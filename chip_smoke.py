@@ -109,7 +109,27 @@ exits non-zero with no result):
    artifacts; each epoch's seconds and pairs/s beside phase fit's and
    phase train's, the seconds each epoch's ``_make_batch`` took on the
    host, the T buckets and the eval command's seconds;
-5c. widths — the layers the width repairs open (``ops/lstm_cuda.py:
+5c. variational — the ablation configuration (``BASELINE.json``
+   ``configs[2]``: variational dropout at 0.3, ``use_projection``,
+   ``bi_reduce`` mean) at the manuscript width: layer 0's eval forward on
+   grouped ``w_hh (2, G, 4H, H)`` (one row mask per encoder call, at eval
+   too) against its plain version on the same weights at G = 2 x 400 rows
+   and 5 x 80, f32 (``bilstm_fwd_f32``) and bf16 (``bilstm_fwd_mma``),
+   timed beside its bound; a gradient and an eval step (8 pairs, T = 64)
+   against the CPU from the same row masks, f32 and bf16; the scoring
+   engine (f32) on one 400-pair request three times, bit-equal, its pairs/s
+   beside phase serve's, layer 0 of every call on the grouped eval forward
+   (phase serve's network, without variational dropout, launches none);
+   ``train e2e_rnn_triplet --variational_dropout true --use_projection
+   true --bi_reduce mean`` over the synthetic tables (bf16, 3 epochs),
+   then ``eval`` of its best checkpoint twice, bit-equal, the grouped
+   forwards launched in both; the counts read as ``grouped_launches``;
+5d. export — ``export torch_ckpt`` of phase fit's best checkpoint: the
+   ``.ckpt``'s ``hyper_parameters``, ``epoch`` and ``global_step``, and a
+   fresh network loaded from it scoring 400 pairs (T = 1500, bf16)
+   bit-equal to the network loaded from the checkpoint's ``state.pt``; the
+   export's ms and bytes;
+5e. widths — the layers the width repairs open (``ops/lstm_cuda.py:
    padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
    at H = 96; both layers at embedding 112 and 100, run at 128 with parts
    of 112; layer 0 at embedding 50, run at H = 64 with E = 56 in f32 and
@@ -309,7 +329,10 @@ exits non-zero with no result):
 11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
     a main path and every key of the contract; the bf16 tensor-core
     forward (both variants), sweep and wgrad with ``fit_launches`` and
-    ``train_cli_launches``, their launches in phases fit and train_cli; the tensor-core forward and lite sweep at 288
+    ``train_cli_launches``, their launches in phases fit and train_cli; the
+    f32 and bf16 eval forwards with ``variational_launches`` (phase
+    variational's launches on grouped weights) and ``grouped_*`` fields
+    (its checks and times); the tensor-core forward and lite sweep at 288
     and the f32 forward, bf16 forward, sweep and wgrad at H = 80 as
     ``h288_*`` and ``h80_*`` fields of their kernels' entries, the bf16
     forward and sweep at E = H = 72 as ``h72_*``; the op's bf16
@@ -352,6 +375,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -818,6 +842,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
             # the main path: every request below goes through the f32
             # tensor-core forward, and none through the bf16 one
             bilstm_layer_fwd_mma.launches = bilstm_layer_fwd_f32.launches = 0
+            bilstm_layer_fwd_f32.grouped_launches = 0
             health = http(base, "/healthz")
             p_small = http(base, "/score", {"pairs": small})["probabilities"]
             big_s, p_big = [], None
@@ -832,6 +857,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                 ))
             stats = http(base, "/statsz")
             launches, bf16_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd_mma.launches
+            grouped = bilstm_layer_fwd_f32.grouped_launches
             # where a bulk request's time goes, without HTTP and JSON: the
             # engine call alone (token cache warm), then under the profiler
             engine_s = []
@@ -850,10 +876,11 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
                 or not np.all(np.isfinite(probs)) \
                 or not np.all((probs > 0) & (probs < 1)):
             raise AssertionError("served probabilities are not finite values in (0, 1)")
-        if launches <= 0 or bf16_launches != 0:
+        if launches <= 0 or bf16_launches != 0 or grouped != 0:
             raise AssertionError(
-                f"the requests launched the f32 tensor-core forward {launches} times and "
-                f"the bf16 one {bf16_launches} times (want > 0 and 0)")
+                f"the requests launched the f32 tensor-core forward {launches} times "
+                f"({grouped} on grouped weights) and the bf16 one {bf16_launches} times "
+                f"(want > 0 (0) and 0)")
         if health.get("status") != "ok" or health["model"]["device"] != str(dev):
             raise AssertionError(f"unexpected /healthz: {health}")
 
@@ -878,7 +905,7 @@ def phase_serve(dev, trunc_len=1500, bulk=400, n_concurrent=8) -> dict:
         "errors": stats["errors"], "bulk_request_s": big_s,
         "pairs_per_s": bulk / float(np.median(big_s)),
         "p50_latency_ms": stats["latency_ms"]["p50"],
-        "launches": launches, "bf16_launches": bf16_launches,
+        "launches": launches, "bf16_launches": bf16_launches, "grouped_launches": grouped,
         "max_abs_err_vs_cpu": err, "cpu_reference_s": cpu_s,
         "engine_bulk_s": engine_s, "engine_bulk_profile": breakdown,
     }
@@ -1908,7 +1935,7 @@ def nondeterministic_grads(dev, batch) -> list:
     return [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
 
 
-def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
+def phase_fit(dev, train_pairs_per_s, keep: Path, epochs=3) -> dict:
     """``Trainer.fit`` at the manuscript width (bf16, ``ranger21_xx``,
     dropout on, SWA on, every checkpoint kept in a temporary directory) for
     ``epochs`` epochs of 6 batches (5 of 80 pairs and one of 40, T = 1500),
@@ -1921,7 +1948,8 @@ def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
     fresh network loaded from the best checkpoint's ``state.pt``; and a
     fresh trainer's ``fit`` from the epoch-0 checkpoint (in a copy of the
     directory) ending at the straight run's weights and SWA average within
-    2^-7 x max(1, max|w|)."""
+    2^-7 x max(1, max|w|). The best checkpoint is copied to
+    ``keep/run/chkpt`` for phase export."""
     import shutil
 
     dm = FitModule(np.random.default_rng(SEED + 29))
@@ -1997,6 +2025,7 @@ def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
             raise AssertionError(f"the resumed fit ends {resume_err} from the straight one")
         differing = [] if bitwise else nondeterministic_grads(dev, dm.train[0])
         checkpoints = sorted(p.name for p in (tmp / "straight").iterdir())
+        shutil.copytree(best, keep / "run" / "chkpt" / best.name)
         state_keys = sorted(torch.load(best / "state.pt", map_location="cpu",
                                        weights_only=True))
     pairs_epoch = sum(len(b["label"]) for b in dm.train)
@@ -2007,7 +2036,7 @@ def phase_fit(dev, train_pairs_per_s, epochs=3) -> dict:
            "train_step_pairs_per_s": train_pairs_per_s,
            "train_loss": losses["train_loss"], "val_loss": losses["val_loss"],
            "train_loss_step": losses["train_loss_step"], "saves": saves,
-           "checkpoints": checkpoints, "state_keys": state_keys,
+           "checkpoints": checkpoints, "best": best.name, "state_keys": state_keys,
            "launches": launches, "test_best": test, "test_vs_hand_max_abs_err": test_err,
            "resume_max_scaled_err": resume_err, "resume_bitwise": bitwise,
            "resume_s": resume_s, "resume_tol": "2^-7 x max(1, max|w|)",
@@ -2050,6 +2079,27 @@ def synthetic_tables(seed=SEED + 30, n_seqs=1200, n_groups=300, splits=(("train"
     return tables, sequences, members
 
 
+# the data flags of a CLI run over ``synthetic_split_reader``'s tables
+SYNTHETIC_DATA_FLAGS = ["--ppi_dataset_path", "synthetic.h5", "--sentencepiece_path",
+                        str(ROOT / "tests" / "fixtures" / "golden_spm.model"), "--c_type", "3"]
+
+
+@contextmanager
+def synthetic_split_reader():
+    """``ppi_oma.read_split`` replaced, inside the block, by
+    ``synthetic_tables`` (the card's machine has no ``h5py``); yields the
+    tables, sequences and groups."""
+    from intrepppid_tpu_torch.data import ppi_oma
+
+    tables, sequences, members = synthetic_tables()
+    read_split = ppi_oma.read_split
+    ppi_oma.read_split = lambda path, c_type, split: (list(tables[split]), sequences, members)
+    try:
+        yield tables, sequences, members
+    finally:
+        ppi_oma.read_split = read_split
+
+
 def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
     """``python -m intrepppid_tpu_torch train e2e_rnn_triplet`` (through the
     CLI dispatcher) at the manuscript width, then ``eval e2e_rnn_triplet``
@@ -2071,8 +2121,7 @@ def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
     from intrepppid_tpu_torch.__main__ import main as cli
     from intrepppid_tpu_torch.data import ppi_oma
 
-    tables, sequences, members = synthetic_tables()
-    read_split, make_batch = ppi_oma.read_split, ppi_oma.IntrepppidDataModule._make_batch
+    make_batch = ppi_oma.IntrepppidDataModule._make_batch
     made = []  # (split, host seconds, T) of every batch the data module made
 
     def timed_make_batch(self, ds, indices, sampling):
@@ -2081,14 +2130,12 @@ def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
         made.append((ds.split, time.perf_counter() - t, int(batch["p1"].shape[1])))
         return batch
 
-    ppi_oma.read_split = lambda path, c_type, split: (list(tables[split]), sequences, members)
     ppi_oma.IntrepppidDataModule._make_batch = timed_make_batch
     counters = train_counters()
-    spm = ROOT / "tests" / "fixtures" / "golden_spm.model"
-    data = ["--ppi_dataset_path", "synthetic.h5", "--sentencepiece_path", str(spm),
-            "--c_type", "3"]
+    data = SYNTHETIC_DATA_FLAGS
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with synthetic_split_reader() as (tables, sequences, members), \
+                tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
             for fn in counters.values():
                 fn.launches = 0
@@ -2116,7 +2163,6 @@ def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
             eval_s = time.perf_counter() - t
             eval_launches = {name: fn.launches for name, fn in counters.items()}
     finally:
-        ppi_oma.read_split = read_split
         ppi_oma.IntrepppidDataModule._make_batch = make_batch
 
     def col(key):
@@ -2162,6 +2208,356 @@ def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
            "test_results": test_results, "eval": evaluated, "eval_vs_test_max_abs_err": eval_err,
            "eval_tol": "1e-6 x max(1, |v|)", "best": best.name, "artifacts": artifacts,
            "launches": launches, "eval_launches": eval_launches}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------ variational
+# the ablation configuration (BASELINE.json configs[2]) at the manuscript
+# width: variational dropout on layer 0's forward W_hh, the triplet
+# projection, bi_reduce mean
+ABLATION = dict(variational_dropout=True, use_projection=True, bi_reduce="mean",
+                rnn_dropout_rate=0.3)
+ABLATION_FLAGS = ["--variational_dropout", "true", "--use_projection", "true", "--bi_reduce",
+                  "mean"]
+# the eval forwards' wrappers by dtype
+EVAL_FWD = {torch.float32: "bilstm_layer_fwd_f32", torch.bfloat16: "bilstm_layer_fwd_mma"}
+
+
+def grouped_counts():
+    """The grouped launches of the tensor-core forwards (``.grouped_launches``:
+    a launch on G > 1 weight groups), by wrapper name."""
+    from intrepppid_tpu_torch.ops import lstm_cuda as L
+
+    return {n: getattr(L, n) for n in ("bilstm_layer_fwd_f32", "bilstm_layer_fwd_mma",
+                                       "bilstm_layer_fwd_train_f32",
+                                       "bilstm_layer_fwd_train_mma")}
+
+
+@torch.no_grad()
+def grouped_eval_checks(dev) -> list:
+    """Layer 0's grouped eval forward of the ablation network on the card
+    against its plain version on the same weights: ``w_hh (2, G, 4H, H)``
+    drawn once from one generator (G row masks at p = 0.3), x and lengths
+    mixing 0, 1, T and random values, G = 2 x 400 rows (the serve bucket)
+    and G = 5 x 80 rows (a step), f32 and bf16; the kernel timed beside
+    the plain version and its bound, in turns with the same rows on one
+    weight group."""
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.ops.lstm import stack_layer_weights
+    from intrepppid_tpu_torch.ops.lstm_cuda import (
+        bilstm_layer_fwd,
+        bilstm_layer_fwd_plain,
+        fwd_kernel,
+    )
+
+    counts = grouped_counts()
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        net = intrepppid_network(0, device=dev, seed=SEED, compute_dtype=dtype, **ABLATION)
+        for G, Bg in ((2, 400), (5, 80)):
+            B = G * Bg
+            layers = net.encoder.lstm_weights(
+                False, G, torch.Generator(device=dev).manual_seed(SEED + G))
+            w_ih, w_hh, bias = stack_layer_weights(layers[0], dtype)
+            parts, lengths, _, _, _ = layer_inputs(B, T_TRAIN, [E_SERVE], H_SERVE, dtype, dev,
+                                                   SEED + G)
+            wrapper = counts[EVAL_FWD[dtype]]
+            before = wrapper.grouped_launches
+            args = (parts, lengths, w_ih, w_hh, bias, dtype)
+            got = bilstm_layer_fwd(*args)
+            torch.cuda.synchronize()
+            if wrapper.grouped_launches != before + 1:
+                raise AssertionError(f"the grouped eval forward did not launch {EVAL_FWD[dtype]}")
+            t = time.perf_counter()
+            want = bilstm_layer_fwd_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            names = ("hs_f", "hs_b", "hn", "cn")
+            check = {"G": G, "rows": B, "T": T_TRAIN, "dtype": str(dtype).replace("torch.", ""),
+                     "kernel": fwd_kernel([E_SERVE], H_SERVE, dtype),
+                     "max_abs_err": {n: float((a.float() - b.float()).abs().max())
+                                     for n, a, b in zip(names, got, want)},
+                     "scaled_err": max(scaled_err(a, b) for a, b in zip(got, want)),
+                     "tol": f"{tol} x max(1, max|ref|)", "plain_ms": plain_ms}
+            if not check["scaled_err"] <= tol:
+                emit({"phase": "variational", "failed": check})
+                raise AssertionError(f"the grouped eval forward disagrees with its plain "
+                                     f"version: {check}")
+            full = layer_inputs(B, T_TRAIN, [E_SERVE], H_SERVE, dtype, dev, SEED,
+                                full_lengths=True)
+            timed = (full[0], full[1], w_ih, w_hh, bias, dtype)
+            # in turns with the same rows on one weight group (group 0's)
+            one = (full[0], full[1], w_ih, w_hh[:, 0].contiguous(), bias, dtype)
+            ms, ms_again, one_ms = in_turns(lambda: bilstm_layer_fwd(*timed),
+                                            lambda: bilstm_layer_fwd(*one), 5)
+            check.update({"ms": ms, "ms_again": ms_again, "ungrouped_ms": one_ms})
+            size = torch.empty((), dtype=dtype).element_size()
+            flops, nbytes = layer_work(B, T_TRAIN, E_SERVE, H_SERVE, size)
+            nbytes += (G - 1) * 2 * 4 * H_SERVE * H_SERVE * size  # the G copies of W_hh
+            check["bound_ms"], check["bound_by"] = bound(
+                [(flops, nbytes, kernel_peak(dtype, check["kernel"]))])
+            checks.append(check)
+            del got, want, args, full, timed, one, parts
+        del net
+    return checks
+
+
+def variational_grad_check(dev, dtype, pairs=8, T=64) -> dict:
+    """One step's gradients and an eval step's loss of the ablation network
+    (variational dropout at p = 0.3, the other dropouts 0) on the card
+    against the port's CPU plain path, from the same row masks: both sides
+    draw them from a CPU generator seeded alike. Tolerance as
+    ``train_grad_check``'s. The card's step is a main path: its launches
+    are counted, and layer 0's forwards (train and eval) must run grouped."""
+    from intrepppid_tpu_torch.models import awd_lstm
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    batch = quintuplet_batch(np.random.default_rng(SEED + 31), pairs, T)
+    counters, grouped = train_counters(), grouped_counts()
+    original = awd_lstm.variational_weight
+    grads, eval_losses = {}, {}
+    for device, side in ((dev, "card"), (torch.device("cpu"), "cpu")):
+        masks = torch.Generator().manual_seed(SEED)
+
+        def weight(w, p, gen, masks=masks):
+            keep = (torch.rand((w.shape[0], 1), generator=masks) < 1.0 - p).to(w.device)
+            return torch.where(keep, w / (1.0 - p), 0.0).to(w.dtype)
+
+        awd_lstm.variational_weight = weight
+        try:
+            net = intrepppid_network(steps_per_epoch=100, device=device, seed=SEED,
+                                     compute_dtype=dtype, embedding_droprate=0.0, do_rate=0.0,
+                                     **ABLATION)
+            tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+            if side == "card":
+                for fn in (*counters.values(), *grouped.values()):
+                    fn.launches = 0
+                for fn in grouped.values():
+                    fn.grouped_launches = 0
+            loss, _ = net.step(tb, torch.Generator(device=device).manual_seed(0), train=True)
+            loss.backward()
+            with torch.no_grad():
+                eval_losses[side] = float(net.step(
+                    tb, torch.Generator(device=device).manual_seed(0), train=False)[0])
+        finally:
+            awd_lstm.variational_weight = original
+        if side == "card":
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            grouped_launches = {name: fn.grouped_launches for name, fn in grouped.items()}
+        grads[side] = {n: p.grad.detach().float().cpu()
+                              for n, p in net.named_parameters() if p.grad is not None}
+    errs = {}
+    for name, ref in grads["cpu"].items():
+        errs[name] = float((grads["card"][name] - ref).abs().max())
+        if not errs[name] <= tol * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"card gradient of {name} (variational dropout) differs "
+                                 f"from the CPU's by {errs[name]}")
+    if set(grads["cpu"]) != set(grads["card"]):
+        raise AssertionError("the card's variational step did not reach the same parameters")
+    eval_err = abs(eval_losses["card"] - eval_losses["cpu"])
+    if not eval_err <= tol * max(1.0, abs(eval_losses["cpu"])):
+        raise AssertionError(f"the card's variational eval loss differs: {eval_losses}")
+    suffix = "f32" if dtype == torch.float32 else "mma"
+    if min(grouped_launches[f"bilstm_layer_fwd_train_{suffix}"],
+           grouped_launches[f"bilstm_layer_fwd_{suffix}"]) <= 0:
+        raise AssertionError(f"the variational step never ran grouped forwards: "
+                             f"{grouped_launches}")
+    return {"pairs": pairs, "T": T, "dtype": str(dtype).replace("torch.", ""),
+            "params": len(errs), "max_abs_err": max(errs.values()), "eval_loss_err": eval_err,
+            "tol": f"{tol} x max(1, max|grad|)",
+            "launches": {n: v for n, v in launches.items() if v},
+            "grouped_launches": grouped_launches}
+
+
+def serve_pairs(rng, n, trunc_len=T_SERVE):
+    """``n`` pairs of random sequences, lengths in [50, trunc_len], the first
+    at ``trunc_len`` (phase serve's bulk request)."""
+    lens = rng.integers(50, trunc_len + 1, size=(n, 2))
+    lens[0] = trunc_len
+    return [tuple("".join(rng.choice(list(AAS), int(k))) for k in ab) for ab in lens]
+
+
+def phase_variational(dev, serve, epochs=3) -> dict:
+    """The ablation configuration (``BASELINE.json`` ``configs[2]``:
+    variational dropout at ``rnn_dropout_rate`` 0.3, ``use_projection``,
+    ``bi_reduce`` mean) at the manuscript width (vocab 250, E = H = 64, two
+    layers, T = 1500). (a) Layer 0's grouped eval forward against its plain
+    version (``grouped_eval_checks``) and a gradient step against the CPU
+    (``variational_grad_check``), f32 and bf16. (b) The scoring engine
+    (f32) on a 400-pair bulk request, twice: bit-equal scores, the f32
+    tensor-core eval forward launched on grouped weights (phase serve
+    checks that the network without it launches none), the bf16 one not at
+    all, and scores unlike the same weights without the masks; pairs/s
+    beside phase serve's (its HTTP requests and its engine calls). (c) ``train e2e_rnn_triplet`` with
+    ``--variational_dropout true --use_projection true --bi_reduce mean``
+    over ``synthetic_tables`` (bf16, 3 epochs of 440 pairs), then ``eval``
+    on its best checkpoint twice, bit-equal: the bf16 tensor-core kernels
+    launched in training (the forwards on grouped weights) and the grouped
+    eval forward in ``eval``, no f32 or CUDA-core kernel. Each path's
+    counts are set to 0 just before it and read just after."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.serve import ScoringEngine
+
+    kernel_checks = grouped_eval_checks(dev)
+    grad_checks = [variational_grad_check(dev, dtype)
+                   for dtype in (torch.float32, torch.bfloat16)]
+
+    # (b) the engine
+    counts = grouped_counts()
+    net = intrepppid_network(0, device=dev, seed=SEED, **ABLATION)
+    engine = ScoringEngine(net, None, SentencePieceTokenizer(ROOT / "tests" / "fixtures"
+                                                             / "tiny_spm.model"),
+                           trunc_len=T_SERVE, batch_size=16, bulk_batch_size=B_SERVE // 2)
+    big = serve_pairs(np.random.default_rng(SEED + 32), B_SERVE // 2)
+    for fn in counts.values():
+        fn.launches = fn.grouped_launches = 0
+    scores, bulk_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        scores.append(engine.score_pairs(big))
+        bulk_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    engine_launches = {n: (fn.launches, fn.grouped_launches) for n, fn in counts.items()}
+    if not all(np.array_equal(scores[0], s) for s in scores[1:]):
+        raise AssertionError("the variational engine scored one request differently twice")
+    if not (np.all(np.isfinite(scores[0])) and np.all((scores[0] > 0) & (scores[0] < 1))):
+        raise AssertionError("variational scores are not finite values in (0, 1)")
+    # the row masks act: the same weights without variational dropout score otherwise
+    plain = intrepppid_network(0, device=dev, seed=SEED, **{**ABLATION,
+                                                            "variational_dropout": False})
+    plain.load_state_dict(net.state_dict())
+    unmasked = ScoringEngine(plain, None, engine.spp, trunc_len=T_SERVE, batch_size=16,
+                             bulk_batch_size=B_SERVE // 2).score_pairs(big)
+    masks_shift = float(np.abs(scores[0] - unmasked).max())
+    if not masks_shift > 0:
+        raise AssertionError("the variational engine scores as the network without masks")
+    f32_launches, f32_grouped = engine_launches["bilstm_layer_fwd_f32"]
+    if f32_grouped <= 0 or 2 * f32_grouped != f32_launches \
+            or engine_launches["bilstm_layer_fwd_mma"][0] != 0:
+        raise AssertionError(f"the engine's launches {engine_launches}: want the f32 eval "
+                             f"forward, layer 0 of each call grouped, and no bf16 one")
+    del engine, net, plain
+
+    # (c) the CLI
+    counters = train_counters()
+    with synthetic_split_reader(), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for fn in (*counters.values(), *counts.values()):
+            fn.launches = 0
+        for fn in counts.values():
+            fn.grouped_launches = 0
+        t = time.perf_counter()
+        trainer, test = cli(["train", "e2e_rnn_triplet", *SYNTHETIC_DATA_FLAGS, "--num_epochs",
+                             str(epochs), "--batch_size", str(PAIRS_TRAIN), "--vocab_size",
+                             "258", "--trunc_len", str(T_TRAIN), "--workers", "4", "--seed",
+                             str(SEED), "--precision", "bf16", "--log_path", str(tmp / "logs"),
+                             *ABLATION_FLAGS])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counters.items()}
+        train_grouped = {n: fn.grouped_launches for n, fn in counts.items()}
+        run = tmp / "logs" / trainer.checkpoints.model_name
+        hyperparams = json.loads((run / "hyperparams.json").read_text())
+        metrics = json.loads((run / "metrics.json").read_text())
+        best = trainer.checkpoints.best_checkpoint()
+        evals, eval_s = [], []
+        for fn in (*counters.values(), *counts.values()):
+            fn.launches = 0
+        for fn in counts.values():
+            fn.grouped_launches = 0
+        for _ in range(2):
+            t = time.perf_counter()
+            evals.append(cli(["eval", "e2e_rnn_triplet", "--checkpoint_path", str(best),
+                              *SYNTHETIC_DATA_FLAGS, "--split", "test", "--batch_size",
+                              str(PAIRS_TRAIN), "--workers", "4", "--seed", str(SEED)]))
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+        eval_launches = {name: fn.launches for name, fn in counters.items()}
+        eval_grouped = {n: fn.grouped_launches for n, fn in counts.items()}
+    losses = [e["value"] for k in ("train_loss", "val_loss", "test_loss") for e in metrics[k]]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"a variational train_cli loss is not finite: {losses}")
+    if (hyperparams["variational_dropout"], hyperparams["use_projection"],
+            hyperparams["bi_reduce"]) != (True, True, "mean"):
+        raise AssertionError(f"hyperparams.json lacks the ablation switches: {hyperparams}")
+    if evals[0] != evals[1]:
+        raise AssertionError(f"eval of one checkpoint gave {evals[0]} and then {evals[1]}")
+    missing = [n for n in FIT_BF16 if launches[n] <= 0]
+    ran_old = [n for n, c in (*launches.items(), *eval_launches.items())
+               if n in FIT_NEVER and c != 0]
+    if missing or ran_old or min(train_grouped["bilstm_layer_fwd_train_mma"],
+                                 train_grouped["bilstm_layer_fwd_mma"],
+                                 eval_grouped["bilstm_layer_fwd_mma"]) <= 0:
+        raise AssertionError(f"the variational CLI never launched {missing} (grouped: "
+                             f"{train_grouped}, eval {eval_grouped}), or ran {ran_old}")
+    out = {"phase": "variational", "config": {"vocab": 250, "E": E_SERVE, "H": H_SERVE,
+                                              "layers": 2, "T": T_TRAIN, **ABLATION},
+           "kernel_checks": kernel_checks, "grad_checks": grad_checks,
+           "engine": {"pairs": len(big), "bulk_request_s": bulk_s,
+                      "pairs_per_s": len(big) / float(np.median(bulk_s)),
+                      "serve_engine_pairs_per_s": B_SERVE // 2 / float(
+                          np.median(serve["engine_bulk_s"])),
+                      "serve_pairs_per_s": serve["pairs_per_s"], "bitwise_repeat": True,
+                      "max_shift_vs_no_masks": masks_shift, "launches": engine_launches},
+           "train_cli": {"epochs": epochs, "epoch_time_s": [e["value"] for e in
+                                                            metrics["epoch_time_s"]],
+                         "seq_pairs_per_s": [e["value"] for e in metrics["seq_pairs_per_s"]],
+                         "train_command_s": train_s, "eval_command_s": eval_s,
+                         "test_results": test, "eval": evals[0], "eval_bitwise_repeat": True,
+                         "launches": launches, "grouped_launches": train_grouped,
+                         "eval_launches": eval_launches, "eval_grouped_launches": eval_grouped}}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------------ export
+def phase_export(dev, best: Path, pairs=B_SERVE // 2) -> dict:
+    """``python -m intrepppid_tpu_torch export torch_ckpt`` (through the CLI
+    dispatcher) on phase fit's best checkpoint, in a run directory with the
+    fit network's ``hyperparams.json``: the ``.ckpt`` holds ``state_dict``,
+    ``hyper_parameters``, ``epoch`` and ``global_step``; loaded through
+    ``load_reference_checkpoint`` into a fresh network on the card it
+    scores 400 pairs (T = 1500, bf16) bit-equal to the network loaded from
+    the checkpoint's own ``state.pt``. The export's ms and bytes."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint, load_weights
+
+    hp = {"vocab_size": 250, "embedding_size": E_SERVE, "rnn_num_layers": 2,
+          "bi_reduce": "last", "use_projection": False, "variational_dropout": False}
+    (best.parent.parent / "hyperparams.json").write_text(json.dumps(hp))
+    out_path = best.parent.parent / "exported.ckpt"
+    t = time.perf_counter()
+    cli(["export", "torch_ckpt", "--checkpoint_path", str(best), "--out_path", str(out_path)])
+    export_ms = (time.perf_counter() - t) * 1e3
+    chkpt = torch.load(out_path, map_location="cpu", weights_only=True)
+    state = torch.load(best / "state.pt", map_location="cpu", weights_only=True)
+    if chkpt.get("hyper_parameters") != hp or (chkpt.get("epoch"), chkpt.get("global_step")) \
+            != (state["epoch"], state["global_step"]):
+        raise AssertionError(f"the export lacks its metadata: {sorted(chkpt)}")
+    nets = {}
+    for name, weights in (("state", state["params"]),
+                          ("export", load_reference_checkpoint(out_path))):
+        nets[name] = fit_network(dev, 6, 3)
+        load_weights(nets[name], weights)
+    rng = np.random.default_rng(SEED + 33)
+    b = quintuplet_batch(rng, pairs, T_TRAIN)
+    x1, x2 = (torch.as_tensor(b[k]).to(dev) for k in ("p1", "p2"))
+    with torch.no_grad():
+        logits = {name: net(x1, x2) for name, net in nets.items()}
+    torch.cuda.synchronize()
+    if not torch.equal(logits["state"], logits["export"]) \
+            or not bool(torch.isfinite(logits["state"]).all()):
+        raise AssertionError("the exported weights score differently from the checkpoint's")
+    out = {"phase": "export", "checkpoint": best.name, "export_ms": export_ms,
+           "bytes": out_path.stat().st_size, "state_dict_entries": len(chkpt["state_dict"]),
+           "keys": sorted(chkpt), "epoch": chkpt["epoch"], "global_step": chkpt["global_step"],
+           "pairs": pairs, "T": T_TRAIN, "bitwise": True}
     emit(out)
     return out
 
@@ -4973,8 +5369,13 @@ def main() -> int:
     serve = run(phase_serve, dev)
     tk = run(phase_train_kernel, dev)
     train = run(phase_train, dev)
-    fit = run(phase_fit, dev, train["pairs_per_s"])
+    # phase fit's best checkpoint, kept for phase export
+    work = tempfile.TemporaryDirectory()
+    fit = run(phase_fit, dev, train["pairs_per_s"], Path(work.name))
     tcli = run(phase_train_cli, dev, train["pairs_per_s"], fit)
+    var = run(phase_variational, dev, serve)
+    run(phase_export, dev, Path(work.name) / "run" / "chkpt" / fit["best"])
+    work.cleanup()
     widths = run(phase_widths, dev)
     wk = run(phase_wide_kernel, dev)
     scaled = run(phase_train_scaled, dev)
@@ -6219,6 +6620,33 @@ def main() -> int:
                 k[key] <= 0 for k in entries):
             raise AssertionError(f"the kernels line lacks an entry of the path's kernels, or "
                                  f"one never launched there: {key}")
+    # the eval forwards on grouped weights (variational dropout): phase
+    # variational's engine (f32) and its CLI run, training and eval (bf16)
+    vcli = var["train_cli"]
+    grouped_paths = {
+        "bilstm_layer_fwd_f32": ("float32", var["engine"]["launches"]["bilstm_layer_fwd_f32"][1]),
+        "bilstm_layer_fwd_mma": ("bfloat16", vcli["grouped_launches"]["bilstm_layer_fwd_mma"]
+                                 + vcli["eval_grouped_launches"]["bilstm_layer_fwd_mma"])}
+    for k in kernels:
+        if k["name"] not in grouped_paths:
+            continue
+        dtype, k["variational_launches"] = grouped_paths[k["name"]]
+        checks = [c for c in var["kernel_checks"] if c["dtype"] == dtype]
+        k["grouped_eval_max_abs_err"] = max(max(c["max_abs_err"].values()) for c in checks)
+        k["grouped_eval_scaled_err"] = max(c["scaled_err"] for c in checks)
+        for c in checks:
+            tag = f"grouped_g{c['G']}"
+            k.update({f"{tag}_{n}": c[n] for n in ("ms", "ms_again", "ungrouped_ms",
+                                                   "plain_ms", "bound_ms", "bound_by")})
+        k["work"] += ("; variational_launches: its launches on grouped weights (layer 0 of the "
+                      "ablation network, variational dropout) in phase variational's "
+                      + ("engine" if dtype == "float32" else "train and eval commands")
+                      + "; grouped_eval_*: that layer against the plain version at G = 2 x 400 "
+                      "and 5 x 80 rows, T = 1500, lengths mixing 0, 1, T and random values; "
+                      "grouped_gN_*: timed at full lengths in turns with the same rows on "
+                      "one weight group (ungrouped_ms)")
+        if k["variational_launches"] <= 0:
+            raise AssertionError(f"phase variational never ran {k['name']} on grouped weights")
     if len(kernels) != 37 or any(k["launches"] <= 0 for k in kernels):
         raise AssertionError(f"a kernel of a main path was never launched: "
                              f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -51,7 +51,13 @@ class Eval:
         Architecture hyperparameters default to the values recorded in the
         run's ``hyperparams.json`` (found two directories above the
         checkpoint, the training layout) when available, else to the
-        manuscript defaults; explicit flags always win.
+        manuscript defaults; explicit flags always win. Unlike the JAX CLI,
+        which builds the network without variational dropout whatever the
+        run recorded, ``variational_dropout`` and ``rnn_dropout_rate`` come
+        from the run's ``hyperparams.json`` too: the reference keeps
+        variational dropout active at eval, so a model trained with it is
+        scored with its row masks, every batch's drawn from a generator
+        seeded 0.
         """
         import torch
 
@@ -62,7 +68,7 @@ class Eval:
         from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint, load_weights
         from intrepppid_tpu_torch.utils.device import resolve_device
 
-        refuse_unported(n_data_parallel, None, False)
+        refuse_unported(n_data_parallel, None)
         # before any file is read: a machine without a card refuses here
         dev = resolve_device(device)
 
@@ -105,6 +111,8 @@ class Eval:
             vocab_size=vocab_size,
             embedding_size=embedding_size,
             rnn_num_layers=rnn_num_layers,
+            rnn_dropout_rate=hp.get("rnn_dropout_rate", 0.3),
+            variational_dropout=hp.get("variational_dropout", False),
             bi_reduce=bi_reduce,
             use_projection=use_projection,
             beta_classifier=beta_classifier,
@@ -131,7 +139,10 @@ class Eval:
         trainer = Trainer(net, seed=seed, swa=None)
         acc = EpochAccumulator()
         for i, batch in enumerate(batches):
-            acc.add(trainer.eval_step(batch, i), batch_rows(batch))
+            # every batch's variational masks from one seed, as the JAX
+            # CLI's PRNGKey(0) for every batch
+            gen = torch.Generator(dev).manual_seed(0)
+            acc.add(trainer.eval_step(batch, i, gen=gen), batch_rows(batch))
         metrics = {f"{split}_{k}": float(v) for k, v in acc.means().items()}
         print(json.dumps(metrics, indent=2))
         if out_path is not None:

@@ -296,7 +296,7 @@ class Infer:
                 host = host.pin_memory()
             ids = host.to(dev, non_blocking=True)
             with torch.no_grad():
-                probs = torch.sigmoid(net(ids[0], ids[1])).reshape(-1)
+                probs = torch.sigmoid(net(ids[0], ids[1], gen=net.eval_generator())).reshape(-1)
             return [itx_id for itx_id, _, _ in rows_buf], probs, host
 
         n_done = 0

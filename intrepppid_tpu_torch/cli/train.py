@@ -9,9 +9,8 @@ The JAX CLI's flags and defaults, its run-name scheme
 kernels). ``--precision bf16|fp32`` picks the compute dtype.
 
 Not ported, and refused by name: ``--n_data_parallel`` above 1 (ROADMAP.md
-A6), ``--profile_dir`` (A7) and ``--variational_dropout true`` (A4). The
-JAX CLI's ``steps_per_dispatch`` answered the TPU host link and is left
-out.
+A6) and ``--profile_dir`` (A7). The JAX CLI's ``steps_per_dispatch``
+answered the TPU host link and is left out.
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ from typing import Optional, Union
 from intrepppid_tpu_torch.utils.run_name import generate_passphrase
 
 
-def refuse_unported(n_data_parallel, profile_dir, variational_dropout) -> None:
+def refuse_unported(n_data_parallel, profile_dir) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of each option
     the port does not have yet."""
     if n_data_parallel is not None and int(n_data_parallel) > 1:
@@ -30,8 +29,6 @@ def refuse_unported(n_data_parallel, profile_dir, variational_dropout) -> None:
             "n_data_parallel > 1 is not ported: the port runs on one card (ROADMAP.md A6)")
     if profile_dir is not None:
         raise NotImplementedError("profile_dir is not ported (ROADMAP.md A7)")
-    if variational_dropout:
-        raise NotImplementedError("variational_dropout is not ported (ROADMAP.md A4)")
 
 
 class Train:
@@ -74,7 +71,7 @@ class Train:
         from intrepppid_tpu_torch.train.e2e_triplet import train_e2e_rnn_triplet
         from intrepppid_tpu_torch.utils.device import resolve_device
 
-        refuse_unported(n_data_parallel, profile_dir, variational_dropout)
+        refuse_unported(n_data_parallel, profile_dir)
         # before any file is read or written: a machine without a card
         # refuses here
         dev = resolve_device(device)

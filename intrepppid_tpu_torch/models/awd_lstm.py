@@ -5,8 +5,11 @@ torch weight layout, ``bi_reduce`` over the last layer's two final states
 and ``fc``. In training, embedding dropout draws one vocabulary-row mask per
 encoder call and weight drop one DropConnect mask of the layer-0 forward
 ``W_hh`` per call (`intrepppid_tpu/models/awd_lstm.py:131-174, 216-227`);
-both are the identity at eval. Variational dropout, which the reference
-keeps active at eval, is not ported yet and is rejected.
+both are the identity at eval. With ``variational_dropout`` the layer-0
+forward ``W_hh`` instead gets one row mask per encoder call, at eval too,
+as the reference keeps it active there: the encoder then needs a
+generator on every call, and runs its calls on grouped weights even at
+``rnn_dropout_rate == 0`` (the JAX package's ``needs_groups``).
 
 Truncation is per encoder call, not per row: ``group_max_lengths`` gives
 every row of a call-group that group's longest non-pad length, and the
@@ -21,7 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from intrepppid_tpu_torch.ops.dropout import dropconnect_weight, embedding_dropout
+from intrepppid_tpu_torch.ops.dropout import (
+    dropconnect_weight,
+    embedding_dropout,
+    variational_weight,
+)
 from intrepppid_tpu_torch.ops.lstm import bilstm
 
 BI_REDUCE_MODES = ("concat", "max", "mean", "last")
@@ -50,11 +57,6 @@ class EncoderConfig:
                 'bi_reduce="concat" is rejected: in the reference it feeds a '
                 "2*embedding vector into an embedding->embedding Linear and "
                 "crashes; only max/mean/last are viable."
-            )
-        if self.variational_dropout:
-            raise NotImplementedError(
-                "variational_dropout (active at eval in the reference) is not "
-                "ported yet; see ROADMAP.md"
             )
 
 
@@ -135,27 +137,41 @@ class AWDLSTMEncoder(nn.Module):
 
     def lstm_weights(self, train: bool, groups: int,
                      gen: Optional[torch.Generator]) -> List[Dict[str, torch.Tensor]]:
-        """The stack's weights for one forward. In training with weight drop,
-        layer 0's forward ``W_hh`` gets one DropConnect mask per encoder call
-        (``w_hh (2, G, 4H, H)``, the reverse direction's matrix broadcast to
-        the G calls, so autograd sums its gradient over them)."""
+        """The stack's weights for one forward. Layer 0's forward ``W_hh``
+        gets one mask per encoder call: a variational row mask with
+        ``variational_dropout`` (at eval too), else in training with weight
+        drop a DropConnect mask. With G > 1 calls it is ``w_hh (2, G, 4H,
+        H)``, the reverse direction's matrix copied to the G calls, so
+        autograd sums its gradient over them."""
         layers = [dict(lp.items()) for lp in self.lstm]
         p = self.cfg.rnn_dropout_rate
-        if not train or p == 0.0:
+        if self.cfg.variational_dropout:
+            if gen is None:
+                raise ValueError(
+                    "variational dropout is active at eval too: the encoder needs a "
+                    "generator on every call")
+
+            def drop(w):
+                return variational_weight(w, p, gen)
+        elif train and p > 0.0:
+            def drop(w):
+                return dropconnect_weight(w, p, True, gen)
+        else:
             return layers
         w_hh = layers[0]["w_hh"]
         if groups > 1:
-            fwd = torch.stack([dropconnect_weight(w_hh[0], p, True, gen) for _ in range(groups)])
+            fwd = torch.stack([drop(w_hh[0]) for _ in range(groups)])
             layers[0]["w_hh"] = torch.stack([fwd, w_hh[1].expand_as(fwd)])
         else:
-            layers[0]["w_hh"] = torch.stack([dropconnect_weight(w_hh[0], p, True, gen), w_hh[1]])
+            layers[0]["w_hh"] = torch.stack([drop(w_hh[0]), w_hh[1]])
         return layers
 
     def forward(self, ids: torch.Tensor, groups: int = 1, train: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Sequence embeddings ``(B, E)`` for ids ``(B, T)``, the rows being
         ``groups`` stacked encoder calls (group-major). ``train`` turns the
-        dropouts on, drawing from ``gen``."""
+        dropouts on, drawing from ``gen``; with ``variational_dropout`` the
+        row masks are drawn from ``gen`` at eval too."""
         cfg = self.cfg
         max_len = group_max_lengths(ids, groups)
         x = embedding_dropout(self.embedding, ids, cfg.embedding_droprate, train, gen,

@@ -59,9 +59,20 @@ class TripletE2ENet(nn.Module):
                 cfg.embedding_size, cfg.embedding_size, gen
             )
 
+    def eval_generator(self) -> Optional[torch.Generator]:
+        """The generator a scoring call passes at eval: where the encoder has
+        variational dropout (active at eval), a fresh one seeded 0 on the
+        network's device, as the JAX package's ``forward`` draws its masks
+        from ``PRNGKey(0)`` on every call, so every call scores alike; else
+        None, as nothing is drawn."""
+        if not self.cfg.encoder.variational_dropout:
+            return None
+        return torch.Generator(next(self.parameters()).device).manual_seed(0)
+
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Pair logits ``(B, 1)`` for token ids ``x1``, ``x2`` ``(B, T)``."""
+        """Pair logits ``(B, 1)`` for token ids ``x1``, ``x2`` ``(B, T)``;
+        ``gen`` feeds the dropouts (at eval, variational dropout's alone)."""
         B = x1.shape[0]
         z = self.encoder(torch.cat([x1, x2]), groups=2, train=train, gen=gen)
         return self.head(z[:B], z[B:], self.cfg.do_rate, train, gen)

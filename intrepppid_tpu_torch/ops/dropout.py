@@ -1,16 +1,18 @@
 """Stochastic regularisation and the embedding lookup
-(`intrepppid_tpu/ops/dropout.py:28-45, 129-156`).
+(`intrepppid_tpu/ops/dropout.py:28-60, 129-156`).
 
 * ``dropout`` — inverted dropout of activations (``nn.Dropout``);
 * ``dropconnect_weight`` — per-element weight dropout (DropConnect);
+* ``variational_weight`` — per-row weight dropout (variational dropout),
+  which the reference keeps active at eval;
 * ``embedding_dropout`` — AWD-LSTM embedding dropout: one Bernoulli mask
   over whole vocabulary rows, then the lookup.
 
-All masks scale the kept values by ``1/(1-p)`` and are the identity when
-not training or ``p == 0``. Random bits come from an explicit
-``torch.Generator`` on the tensors' device; the JAX package's
-``jax.random`` keys give other bits, so the two agree in distribution, not
-bitwise. The JAX package's one-hot-GEMM ``embedding_gather`` and its VJP
+All masks scale the kept values by ``1/(1-p)`` and are the identity at
+``p == 0``, and all but the variational mask when not training. Random
+bits come from an explicit ``torch.Generator`` on the tensors' device; the
+JAX package's ``jax.random`` keys give other bits, so the two agree in
+distribution, not bitwise. The JAX package's one-hot-GEMM ``embedding_gather`` and its VJP
 were a TPU workaround; here the lookup is a plain ``F.embedding``, gathered
 from the f32 table so its gradient accumulates in f32.
 """
@@ -39,6 +41,18 @@ def dropconnect_weight(w: torch.Tensor, p: float, train: bool,
     """Per-element weight dropout (``F.dropout(raw_w, p, training=train)`` in
     the reference's ``WeightDrop``); the identity in eval."""
     return dropout(w, p, train, gen)
+
+
+def variational_weight(w: torch.Tensor, p: float,
+                       gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Per-row weight dropout (Gal & Ghahramani variational dropout): one
+    keep-mask of shape ``(rows, 1)`` expanded across the columns, kept rows
+    scaled by ``1/(1-p)``. Not gated on ``train``: the reference applies it
+    with ``training=True`` (`intrepppid/utils/weightdrop.py:94`), so it is
+    active at eval too. The identity at ``p == 0``."""
+    if p == 0.0:
+        return w
+    return torch.where(_keep((w.shape[0], 1), p, w, gen), w / (1.0 - p), 0.0).to(w.dtype)
 
 
 def embedding_lookup(

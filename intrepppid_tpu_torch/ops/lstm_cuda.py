@@ -1689,7 +1689,9 @@ def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_
                      with_states):
     """Launch the tensor-core forward ``csrc/<name>.cu`` (``bilstm_fwd_mma``
     or ``bilstm_fwd_f32``) for ``wrapper`` (the eval or the train variant),
-    which counts the launch; an empty batch launches nothing."""
+    which counts the launch, and in ``.grouped_launches`` a launch on G > 1
+    weight groups (the eval variant runs grouped with variational dropout);
+    an empty batch launches nothing."""
     if len(x_parts) not in (1, 2):
         raise ValueError(f"{name} kernel takes 1 or 2 input parts, got {len(x_parts)}")
     cd = compute_dtype
@@ -1734,6 +1736,8 @@ def _tile_fwd_launch(wrapper, name, x_parts, lengths, w_ih, w_hh, bias, compute_
         )
     _raise_on_error(name, err)
     wrapper.launches += 1
+    if G > 1:
+        wrapper.grouped_launches += 1
     return outs
 
 
@@ -1820,6 +1824,7 @@ def bilstm_layer_fwd_mma(
 
 
 bilstm_layer_fwd_mma.launches = 0
+bilstm_layer_fwd_mma.grouped_launches = 0
 
 
 def bilstm_layer_fwd_train_mma(
@@ -1842,6 +1847,7 @@ def bilstm_layer_fwd_train_mma(
 
 
 bilstm_layer_fwd_train_mma.launches = 0
+bilstm_layer_fwd_train_mma.grouped_launches = 0
 
 
 def bilstm_layer_fwd_f32(
@@ -1868,6 +1874,7 @@ def bilstm_layer_fwd_f32(
 
 
 bilstm_layer_fwd_f32.launches = 0
+bilstm_layer_fwd_f32.grouped_launches = 0
 
 
 def bilstm_layer_fwd_train_f32(
@@ -1890,6 +1897,7 @@ def bilstm_layer_fwd_train_f32(
 
 
 bilstm_layer_fwd_train_f32.launches = 0
+bilstm_layer_fwd_train_f32.grouped_launches = 0
 # the tensor-core forwards' (eval, train) wrappers, by kernel name
 _TILE_FWD = {"bilstm_fwd_mma": (bilstm_layer_fwd_mma, bilstm_layer_fwd_train_mma),
              "bilstm_fwd_f32": (bilstm_layer_fwd_f32, bilstm_layer_fwd_train_f32)}

@@ -36,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -203,8 +204,12 @@ class Ranger21(torch.optim.Optimizer):
         if not entries:
             return loss
 
-        bias_c1 = 1.0 - hp["beta1"] ** step
-        bias_c2 = 1.0 - beta2 ** step
+        # the bias corrections in the moments' precision: in f32 for f32
+        # weights, as the JAX package computes them from its f32 step count
+        real = np.float64 if var_sum.dtype == torch.float64 else np.float32
+        stepf = real(step)
+        bias_c1 = float(real(1.0) - real(hp["beta1"]) ** stepf)
+        bias_c2 = float(real(1.0) - real(beta2) ** stepf)
         variance_normalized = torch.sqrt(var_sum / bias_c2 / n_elems).clamp_min(1e-12)
         lr = self.lr_at(step)
         noise_norm = math.sqrt((1.0 + beta2) ** 2 + beta2 ** 2)

@@ -89,7 +89,8 @@ class ScoringEngine:
             host = host.pin_memory()
         ids = host.to(self.device, non_blocking=True)
         with torch.inference_mode():
-            probs = torch.sigmoid(self.net(ids[0], ids[1])).reshape(-1)
+            probs = torch.sigmoid(
+                self.net(ids[0], ids[1], gen=self.net.eval_generator())).reshape(-1)
         return probs, host
 
     # ------------------------------------------------------------ tokenize

@@ -201,12 +201,16 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping[str, Any], i: int = 0,
-                  net: Optional[IntrepppidNetwork] = None) -> Dict[str, torch.Tensor]:
+                  net: Optional[IntrepppidNetwork] = None,
+                  gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``net.step(train=False)`` on ``batch`` (by default the trainer's
         network): losses and metrics. No gradient is taken, so the LSTM runs
-        its eval forward."""
+        its eval forward. Its variational masks, where the network has
+        them, come from ``gen``, by default the stream ``(seed + 17, i)``
+        (the JAX trainer's ``fold_in(PRNGKey(seed + 17), i)``)."""
         net = (net if net is not None else self.net).eval()
-        gen = step_generator(self.device, self.seed + 17, i)
+        if gen is None:
+            gen = step_generator(self.device, self.seed + 17, i)
         _, aux = net.step(self.to_device(batch), gen, train=False)
         return aux
 

@@ -21,7 +21,10 @@ Three layouts meet here:
       head.classify.fc2.module.{weight_raw,bias}
       triplet_projection.1.{weight,bias}               (when use_projection)
 
-* the port's own ``state_dict`` (``models/awd_lstm.py`` names).
+* the port's own ``state_dict`` (``models/awd_lstm.py`` names);
+  ``to_jax_params`` maps it back to the params tree, from which
+  ``save_reference_checkpoint`` writes a reference ``.ckpt`` (``python -m
+  intrepppid_tpu_torch export torch_ckpt``).
 
 ``load_reference_checkpoint`` also takes a checkpoint directory of the
 port's own ``Trainer.fit`` (``train/checkpoint.py``: a ``state.pt`` inside),
@@ -32,7 +35,7 @@ checkpoint directories need JAX and orbax to read; convert them with
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -73,6 +76,41 @@ def from_jax_params(params: Params) -> Dict[str, torch.Tensor]:
         sd["triplet_projection.weight"] = _t(params["triplet_projection"]["w"])
         sd["triplet_projection.bias"] = _t(params["triplet_projection"]["b"])
     return sd
+
+
+def to_jax_params(sd: Dict[str, torch.Tensor]) -> Params:
+    """Inverse of :func:`from_jax_params`: the port's ``state_dict`` -> a
+    params tree in the JAX package's layout (f32 numpy leaves). A network
+    built without ``use_projection`` has no ``triplet_projection``, and
+    neither has the tree."""
+    n_layers = len({k.split(".")[2] for k in sd if k.startswith("encoder.lstm.")})
+    n_proj = len([k for k in sd if k.startswith("encoder.projection.")
+                  and k.endswith(".weight")])
+    encoder: Params = {
+        "embedding": _np(sd["encoder.embedding"]),
+        "lstm": [
+            {d: {name: _np(sd[f"encoder.lstm.{l}.{name}"][i])
+                 for name in ("w_ih", "w_hh", "b_ih", "b_hh")}
+             for i, d in enumerate(("fwd", "bwd"))}
+            for l in range(n_layers)
+        ],
+        "fc": {"w": _np(sd["encoder.fc.weight"]), "b": _np(sd["encoder.fc.bias"])},
+    }
+    if n_proj:
+        encoder["projection"] = [
+            {"w": _np(sd[f"encoder.projection.{i}.weight"]),
+             "b": _np(sd[f"encoder.projection.{i}.bias"])}
+            for i in range(n_proj)
+        ]
+    params: Params = {
+        "encoder": encoder,
+        "head": {fc: {"w": _np(sd[f"head.{fc}.weight"]), "b": _np(sd[f"head.{fc}.bias"])}
+                 for fc in ("fc1", "fc2")},
+    }
+    if "triplet_projection.weight" in sd:
+        params["triplet_projection"] = {"w": _np(sd["triplet_projection.weight"]),
+                                        "b": _np(sd["triplet_projection.bias"])}
+    return params
 
 
 def reference_to_params(sd: Dict[str, Any], rnn_num_layers: int = 2) -> Params:
@@ -140,6 +178,11 @@ def params_to_reference(params: Params) -> Dict[str, torch.Tensor]:
                 sd[f"encoder.encoder.rnn_dp.module.{name}"] = _t(arr)
     sd["encoder.encoder.fc.weight"] = _t(enc["fc"]["w"])
     sd["encoder.encoder.fc.bias"] = _t(enc["fc"]["b"])
+    if "projection" not in enc:
+        raise ValueError(
+            "params have no dead-Projection weights (include_dead_projection=False), "
+            "but the reference module tree requires encoder.projection.* for a "
+            "strict load_state_dict")
     for i, idx in enumerate((0, 2, 4)):
         sd[f"encoder.projection.model.{idx}.weight"] = _t(enc["projection"][i]["w"])
         sd[f"encoder.projection.model.{idx}.bias"] = _t(enc["projection"][i]["b"])
@@ -152,9 +195,35 @@ def params_to_reference(params: Params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def save_reference_checkpoint(params: Params, path) -> None:
-    """Write ``params`` (JAX layout) as a reference-layout ``.ckpt``."""
-    torch.save({"state_dict": params_to_reference(params)}, path)
+def save_reference_checkpoint(params: Params, path,
+                              hyper_parameters: Optional[Dict[str, Any]] = None,
+                              epoch: Optional[int] = None,
+                              global_step: Optional[int] = None) -> int:
+    """Write ``params`` (JAX layout) as a reference-layout ``.ckpt``, as the
+    JAX package's ``save_torch_checkpoint`` does: f32 CPU tensors under
+    ``state_dict``, and ``hyper_parameters``, ``epoch`` and ``global_step``
+    where given. Returns the number of ``state_dict`` entries."""
+    sd = params_to_reference(params)
+    chkpt: Dict[str, Any] = {"state_dict": sd}
+    if hyper_parameters is not None:
+        chkpt["hyper_parameters"] = dict(hyper_parameters)
+    if epoch is not None:
+        chkpt["epoch"] = int(epoch)
+    if global_step is not None:
+        chkpt["global_step"] = int(global_step)
+    torch.save(chkpt, path)
+    return len(sd)
+
+
+def orbax_refusal(path) -> ValueError:
+    """The error for a directory that is not a checkpoint of the port: an
+    orbax checkpoint of the JAX package, which needs JAX to read."""
+    return ValueError(
+        f"{path} is a directory — an orbax checkpoint of the JAX package, "
+        "which needs JAX to read. Convert it first with `python -m "
+        "intrepppid_tpu export torch_ckpt --checkpoint_path "
+        f"{path} --out_path model.ckpt` and serve the .ckpt."
+    )
 
 
 def load_reference_checkpoint(path, rnn_num_layers: int = 2) -> Dict[str, torch.Tensor]:
@@ -171,12 +240,7 @@ def load_reference_checkpoint(path, rnn_num_layers: int = 2) -> Dict[str, torch.
 
         if is_checkpoint(path):
             return load_params_from_checkpoint(path)
-        raise ValueError(
-            f"{path} is a directory — an orbax checkpoint of the JAX package, "
-            "which needs JAX to read. Convert it first with `python -m "
-            "intrepppid_tpu export torch_ckpt --checkpoint_path "
-            f"{path} --out_path model.ckpt` and serve the .ckpt."
-        )
+        raise orbax_refusal(path)
     chkpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = chkpt.get("state_dict", chkpt)
     return from_jax_params(reference_to_params(sd, rnn_num_layers))

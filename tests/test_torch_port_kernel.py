@@ -148,6 +148,21 @@ def _cuda_core_fwd_plan(E_parts, H, dtype):
         raise ValueError(f"bilstm_fwd.cu took no E_parts={list(E_parts)}, H={H}")
 
 
+def test_grouped_eval_takes_the_plain_version_on_cpu():
+    """A grouped ``w_hh`` on the CPU takes the plain version and counts no
+    launch, grouped or not."""
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(6, 10, [16], 16, 2, torch.float32,
+                                                           torch.device("cpu"))
+    counts = [(w.launches, w.grouped_launches) for w in (lstm_cuda.bilstm_layer_fwd_f32,
+                                                          lstm_cuda.bilstm_layer_fwd_mma)]
+    got = lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, torch.float32)
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, torch.float32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counts == [(w.launches, w.grouped_launches) for w in (
+        lstm_cuda.bilstm_layer_fwd_f32, lstm_cuda.bilstm_layer_fwd_mma)]
+
+
 def test_train_wrappers_take_plain_versions_on_cpu():
     parts, lengths, w_ih, w_hh, bias, dy, dhn, dcn = layer_case(
         6, 4, [8, 8], 8, 2, torch.float32, torch.device("cpu"))
@@ -2625,6 +2640,76 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, E_parts, H):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,B", [(2, 128), (2, 40), (5, 80), (5, 30)])
+def test_grouped_eval_forward_matches_plain_on_card(cuda_device, dtype, G, B):
+    """The eval forward on grouped ``w_hh (2, G, 4H, H)``, as variational
+    dropout runs it (G = 2 in ``forward``: 128 rows is ``infer``'s batch of
+    64 pairs; G = 5 in ``step``), layer 0 at E = H = 64: the tensor-core
+    kernel the dispatch names against the plain version, counted on its
+    wrapper's ``grouped_launches``. Groups of 20 and 6 rows leave short
+    row tiles inside each group."""
+    T = 40
+    parts, lengths, w_ih, w_hh, bias, _, _, _ = layer_case(T, B, [64], 64, G, dtype,
+                                                           cuda_device, seed=G)
+    wrapper = {"bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma,
+               "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_f32}[
+        lstm_cuda.fwd_kernel([64], 64, dtype)]
+    before = (wrapper.launches, wrapper.grouped_launches)
+    got = lstm_cuda.bilstm_layer_fwd(parts, lengths, w_ih, w_hh, bias, dtype)
+    want = bidir_layer(parts, lengths, w_ih, w_hh, bias, dtype)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.grouped_launches) == (before[0] + 1, before[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol * max(
+            1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variational_model_eval_on_card(cuda_device, dtype):
+    """A network with variational dropout scores on the card as on the CPU
+    from the same generator seed (the masks drawn on the CPU and moved, so
+    both sides hold the same bits), its layer 0 on the grouped eval
+    kernel; the same call twice gives the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(vocab_size=30, embedding_size=64, variational_dropout=True, use_projection=True,
+              bi_reduce="mean", compute_dtype=dtype)
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(1, 30, (2, 12, 50), generator=g)
+    ids[0, 0, 20:] = 0
+    nets = {dev.type: intrepppid_network(0, device=dev, **kw)
+            for dev in (cuda_device, torch.device("cpu"))}
+    with torch.no_grad():
+        # one draw of the row masks, on the CPU, for both sides
+        layers = nets["cpu"].encoder.lstm_weights(False, 2, torch.Generator().manual_seed(1))
+    wrapper = {"bilstm_fwd_mma": lstm_cuda.bilstm_layer_fwd_mma,
+               "bilstm_fwd_f32": lstm_cuda.bilstm_layer_fwd_f32}[
+        lstm_cuda.fwd_kernel([64], 64, dtype)]
+    logits = {}
+    for name, net in nets.items():
+        dev = next(net.parameters()).device
+        net.encoder.lstm_weights = lambda train, groups, gen, dev=dev: [
+            {k: v.to(dev) for k, v in lp.items()} for lp in layers]
+        before = wrapper.grouped_launches
+        with torch.no_grad():
+            logits[name] = net(ids[0].to(dev), ids[1].to(dev)).float().cpu()
+        if name == "cuda":
+            torch.cuda.synchronize()
+            assert wrapper.grouped_launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= tol * max(
+        1.0, float(logits["cpu"].abs().max()))
+    net = intrepppid_network(0, device=cuda_device, **kw)
+    with torch.no_grad():
+        a, b = (net(ids[0].to(cuda_device), ids[1].to(cuda_device), gen=net.eval_generator())
+                for _ in range(2))
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
