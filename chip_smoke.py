@@ -109,7 +109,23 @@ exits non-zero with no result):
    artifacts; each epoch's seconds and pairs/s beside phase fit's and
    phase train's, the seconds each epoch's ``_make_batch`` took on the
    host, the T buckets and the eval command's seconds;
-5c. variational — the ablation configuration (``BASELINE.json``
+5c. data_parallel — ``parallel/`` and ``--profile_dir`` (child processes of
+   this script, each with its own timeout; one that fails or hangs fails
+   the phase): an NCCL group of one process takes 2 bf16 steps bit for
+   bit the steps without a group, and reports which collectives a gloo
+   group takes on CUDA tensors; two gloo ranks share ``cuda:0`` (NCCL
+   refuses two ranks on one card): 3 steps on their rows of 79-pair
+   global batches (an uneven split, dropout on), bit-equal to each other
+   and within 2^-7 x max(1, max|w|) of one process's steps, then ``train
+   e2e_rnn_triplet --n_data_parallel 2`` over phase train_cli's tables (2
+   epochs): one run name and seed, final weights bit-equal, rank zero
+   alone writing files, each rank's bf16 tensor-core kernels launched;
+   its epoch seconds (two ranks on one card: no multi-card rate); then a
+   one-process ``train ... --profile_dir`` run of 3 epochs: one
+   ``*.pt.trace.json`` of epoch 0's steps holding device events of
+   ``bilstm_fwd_mma``, ``bilstm_bwd_mma`` and ``bilstm_wgrad_mma``, and
+   its epoch 0 seconds beside epochs 1-2;
+5d. variational — the ablation configuration (``BASELINE.json``
    ``configs[2]``: variational dropout at 0.3, ``use_projection``,
    ``bi_reduce`` mean) at the manuscript width: layer 0's eval forward on
    grouped ``w_hh (2, G, 4H, H)`` (one row mask per encoder call, at eval
@@ -124,12 +140,12 @@ exits non-zero with no result):
    true --bi_reduce mean`` over the synthetic tables (bf16, 3 epochs),
    then ``eval`` of its best checkpoint twice, bit-equal, the grouped
    forwards launched in both; the counts read as ``grouped_launches``;
-5d. export — ``export torch_ckpt`` of phase fit's best checkpoint: the
+5e. export — ``export torch_ckpt`` of phase fit's best checkpoint: the
    ``.ckpt``'s ``hyper_parameters``, ``epoch`` and ``global_step``, and a
    fresh network loaded from it scoring 400 pairs (T = 1500, bf16)
    bit-equal to the network loaded from the checkpoint's ``state.pt``; the
    export's ms and bytes;
-5e. widths — the layers the width repairs open (``ops/lstm_cuda.py:
+5f. widths — the layers the width repairs open (``ops/lstm_cuda.py:
    padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
    at H = 96; both layers at embedding 112 and 100, run at 128 with parts
    of 112; layer 0 at embedding 50, run at H = 64 with E = 56 in f32 and
@@ -328,8 +344,9 @@ exits non-zero with no result):
     0); file-to-file seconds and pairs/s, and where the time goes;
 11. the ``kernels`` line (thirty-seven kernels, each with launches > 0 on
     a main path and every key of the contract; the bf16 tensor-core
-    forward (both variants), sweep and wgrad with ``fit_launches`` and
-    ``train_cli_launches``, their launches in phases fit and train_cli; the
+    forward (both variants), sweep and wgrad with ``fit_launches``,
+    ``train_cli_launches`` and ``data_parallel_launches``, their launches
+    in phases fit, train_cli and data_parallel (both ranks); the
     f32 and bf16 eval forwards with ``variational_launches`` (phase
     variational's launches on grouped weights) and ``grouped_*`` fields
     (its checks and times); the tensor-core forward and lite sweep at 288
@@ -2208,6 +2225,323 @@ def phase_train_cli(dev, train_pairs_per_s, fit, epochs=3) -> dict:
            "test_results": test_results, "eval": evaluated, "eval_vs_test_max_abs_err": eval_err,
            "eval_tol": "1e-6 x max(1, |v|)", "best": best.name, "artifacts": artifacts,
            "launches": launches, "eval_launches": eval_launches}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------- data_parallel
+# phase data_parallel: DP_STEPS train steps on fixed global batches of
+# DP_PAIRS pairs (an uneven split over two ranks: 40 and 39 rows plus a
+# weight-0 filler), and the kernel names its profile must hold
+DP_STEPS, DP_PAIRS = 3, 79
+DP_PROFILED = ("bilstm_fwd_mma", "bilstm_bwd_mma", "bilstm_wgrad_mma")
+DP_TOKENS = ("p1", "p2", "anchor", "positive", "negative")
+
+
+def dp_global_batches():
+    rng = np.random.default_rng(SEED + 32)
+    return [quintuplet_batch(rng, DP_PAIRS, T_TRAIN) for _ in range(DP_STEPS)]
+
+
+def dp_local_batch(batch, rank: int, world: int) -> dict:
+    """This rank's rows of a global batch as the data module makes them
+    (``shard_batch_rows``, ``weight``, ``_global_rows``), its token arrays
+    cut to its own longest row, as its own length bucket would cut them."""
+    from intrepppid_tpu_torch.data.ppi_oma import shard_batch_rows
+
+    n = len(batch["label"])
+    idx, weight = shard_batch_rows(np.arange(n), world, rank)
+    out = {k: v[idx] for k, v in batch.items()}
+    if weight is not None:
+        out["weight"] = weight
+    out["_global_rows"] = np.int64(n)
+    T = int(max((out[k] != 0).sum(1).max() for k in DP_TOKENS))
+    out.update({k: out[k][:, :T] for k in DP_TOKENS})
+    return out
+
+
+def dp_steps(dev, rank: int = 0, world: int = 1, steps: int = DP_STEPS) -> dict:
+    """``steps`` train steps of ``fit_network`` (bf16, ``ranger21_xx``,
+    dropout on) on this rank's rows of each global batch (one process:
+    the whole batches); the final weights on the host."""
+    from intrepppid_tpu_torch.train import Trainer
+
+    trainer = Trainer(fit_network(dev, 100, 3), seed=SEED)
+    for batch in dp_global_batches()[:steps]:
+        trainer.train_step(batch if world == 1 else dp_local_batch(batch, rank, world))
+    torch.cuda.synchronize()
+    return {n: p.detach().cpu() for n, p in trainer.net.named_parameters()}
+
+
+def record_writes(root: Path) -> list:
+    """Every file under ``root`` this process opens for writing or
+    ``torch.save``s, and every tree it removes there, from now on."""
+    import builtins
+    import io
+    import os
+    import shutil
+
+    writes = []
+    real_open, real_rmtree, real_save = builtins.open, shutil.rmtree, torch.save
+
+    def under(path):
+        return isinstance(path, (str, os.PathLike)) and Path(os.path.abspath(path)).is_relative_to(root)
+
+    def note(path, prefix=""):
+        writes.append(prefix + str(Path(os.path.abspath(path)).relative_to(root)))
+
+    def open_(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wax+") and under(file):
+            note(file)
+        return real_open(file, mode, *args, **kwargs)
+
+    def rmtree(path, *args, **kwargs):
+        if under(path):
+            note(path, "rmtree ")
+        return real_rmtree(path, *args, **kwargs)
+
+    def save(obj, f, *args, **kwargs):
+        if under(f):
+            note(f)
+        return real_save(obj, f, *args, **kwargs)
+
+    builtins.open = io.open = open_
+    shutil.rmtree = rmtree
+    torch.save = save
+    return writes
+
+
+def gloo_cuda_collectives(dev) -> dict:
+    """Which collectives a gloo group (here of one process) takes on CUDA
+    tensors: ``ok`` or the first line of the backend's refusal."""
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    probes = {
+        "all_reduce": lambda t: dist.all_reduce(t, group=group),
+        "broadcast": lambda t: dist.broadcast(t, 0, group=group),
+        "reduce": lambda t: dist.reduce(t, 0, group=group),
+        "all_gather": lambda t: dist.all_gather([torch.empty_like(t)], t, group=group),
+        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+            torch.empty_like(t), t, group=group),
+        "gather": lambda t: dist.gather(t, [torch.empty_like(t)], 0, group=group),
+        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
+            torch.empty_like(t), t, group=group),
+    }
+    out = {}
+    for name, probe in probes.items():
+        try:
+            probe(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError, TypeError) as e:
+            out[name] = (str(e).strip().splitlines() or [type(e).__name__])[0][:160]
+    return out
+
+
+def dp_cli_args(epochs: int, logs: Path, *extra) -> list:
+    """``train e2e_rnn_triplet`` as phase train_cli runs it."""
+    return ["train", "e2e_rnn_triplet", *SYNTHETIC_DATA_FLAGS, "--num_epochs", str(epochs),
+            "--batch_size", str(PAIRS_TRAIN), "--vocab_size", "258", "--trunc_len", str(T_TRAIN),
+            "--workers", "4", "--seed", str(SEED), "--precision", "bf16", "--log_path",
+            str(logs), *extra]
+
+
+def data_parallel_child(mode: str, rank: int, world: int, port: int, workdir: Path) -> int:
+    """One process of phase data_parallel (``python3 chip_smoke.py
+    data_parallel_child MODE RANK WORLD PORT WORKDIR``), on ``cuda:0``, its
+    results in ``WORKDIR/{mode}_rank{rank}.json``.
+
+    ``nccl1``: 2 of ``dp_steps`` without a group, then in an NCCL group of
+    one, and the collectives a gloo group takes on CUDA tensors. ``ranks``: rank
+    ``rank`` of a gloo group (two ranks share the card, which NCCL
+    refuses): ``dp_steps`` on its rows, then ``train e2e_rnn_triplet
+    --n_data_parallel WORLD`` over the synthetic tables, its counts set to
+    0 just before and read just after, every file it writes recorded."""
+    import os
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.parallel import initialize_distributed
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    # one intra-op thread a process, as torchrun sets for several processes
+    # (OMP_NUM_THREADS=1): the ranks share the machine's cores
+    torch.set_num_threads(1)
+    dev = torch.device("cuda:0")
+    result: dict = {"rank": rank}
+    if mode == "nccl1":
+        alone = dp_steps(dev, steps=2)
+        initialize_distributed(dev, backend="nccl", timeout=timedelta(seconds=300))
+        group = dp_steps(dev, steps=2)
+        result.update(backend=dist.get_backend(), world=dist.get_world_size(),
+                      bitwise=all(torch.equal(alone[n], group[n]) for n in alone),
+                      max_scaled_err=max(scaled_err(group[n], alone[n]) for n in alone),
+                      gloo_cuda=gloo_cuda_collectives(dev))
+    else:
+        initialize_distributed(dev, backend="gloo", timeout=timedelta(seconds=300))
+        torch.save(dp_steps(dev, rank, world), workdir / f"steps_rank{rank}.pt")
+        counters = train_counters()
+        logs = (workdir / "logs").resolve()
+        with synthetic_split_reader():
+            writes = record_writes(logs)
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            trainer, test = cli(dp_cli_args(2, logs, "--n_data_parallel", str(world),
+                                            "--device", "cuda:0"))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+            launches = {name: fn.launches for name, fn in counters.items()}
+        torch.save({n: p.detach().cpu() for n, p in trainer.net.named_parameters()},
+                   workdir / f"cli_rank{rank}.pt")
+        result.update(backend=dist.get_backend(), model_name=trainer.checkpoints.model_name,
+                      seed=trainer.seed, steps=trainer.global_step, test=test,
+                      train_command_s=train_s, writes=writes,
+                      launches={n: v for n, v in launches.items() if v})
+    (workdir / f"{mode}_rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def run_dp_children(mode: str, world: int, workdir: Path, timeout: float) -> list:
+    """Start ``world`` processes of ``data_parallel_child`` together and
+    wait for each at most ``timeout`` seconds; one that fails or hangs
+    fails the phase (every child is stopped first). Their results, by
+    rank."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(workdir / f"{mode}_rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "data_parallel_child", mode, str(r), str(world), str(port),
+                               str(workdir)], cwd=str(ROOT), env=dict(os.environ),
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    failed = []
+    try:
+        for r, proc in enumerate(procs):
+            if proc.wait(timeout=timeout) != 0:
+                failed.append(f"rank {r} exited {proc.returncode}")
+    except subprocess.TimeoutExpired:
+        failed.append(f"a {mode} process ran past {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    if failed:
+        tails = [(workdir / f"{mode}_rank{r}.log").read_text()[-3000:] for r in range(world)]
+        raise AssertionError(f"phase data_parallel: {failed}\n" + "\n".join(tails))
+    return [json.loads((workdir / f"{mode}_rank{r}.json").read_text()) for r in range(world)]
+
+
+def phase_data_parallel(dev, tcli) -> dict:
+    """Data parallelism (``parallel/``) and ``--profile_dir`` on the card.
+
+    (c) an NCCL group of one process: 2 bf16 steps bit for bit
+    the same steps without a group (the backend multi-card runs use, on
+    the path); (b) two gloo ranks on the one card take the same steps on
+    their rows of 79-pair global batches (an uneven split, dropout on),
+    bit-equal to each other and within 2^-7 x max(1, max|w|) of one
+    process's steps on the whole batches; (a) the two ranks run ``train
+    e2e_rnn_triplet --n_data_parallel 2`` at the manuscript width over
+    phase train_cli's tables (2 epochs): the same run name, seed and final
+    weights bit for bit, rank zero alone writing the run's files, and each
+    rank's bf16 tensor-core kernels launched (the f32 and CUDA-core ones
+    never). The two ranks share one card, so their epoch seconds are no
+    multi-card rate. (d) a one-process ``train ... --profile_dir`` run of 3
+    epochs: one ``*.pt.trace.json``, of epoch 0 alone (its optimizer
+    steps), holding device events of the hand kernels ``DP_PROFILED``;
+    its epoch 0 seconds beside epochs 1-2 and phase train_cli's."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        (nccl,) = run_dp_children("nccl1", 1, tmp, timeout=300)
+        nccl_s = time.perf_counter() - t
+        if nccl["backend"] != "nccl" or not nccl["bitwise"]:
+            raise AssertionError(f"the NCCL group of one steps differently: {nccl}")
+        t = time.perf_counter()
+        ranks = run_dp_children("ranks", 2, tmp, timeout=600)
+        ranks_s = time.perf_counter() - t
+
+        alone = dp_steps(dev)
+        r0, r1 = (torch.load(tmp / f"steps_rank{r}.pt") for r in range(2))
+        steps_bitwise = all(torch.equal(r0[n], r1[n]) for n in r0)
+        steps_err = max(scaled_err(r0[n], alone[n]) for n in alone)
+        if not steps_bitwise or not steps_err <= 2.0 ** -7:
+            raise AssertionError(f"the 2-rank steps are {steps_err} from one process's "
+                                 f"(ranks bit-equal: {steps_bitwise})")
+
+        w0, w1 = (torch.load(tmp / f"cli_rank{r}.pt") for r in range(2))
+        cli_bitwise = all(torch.equal(w0[n], w1[n]) for n in w0)
+        name, seed = ranks[0]["model_name"], ranks[0]["seed"]
+        run = tmp / "logs" / name
+        metrics = json.loads((run / "metrics.json").read_text())
+        epochs = [e["value"] for e in metrics["epoch_time_s"]]
+        losses = [e["value"] for k in ("train_loss", "val_loss") for e in metrics[k]]
+        wrote = set(ranks[0]["writes"])
+        want = {f"{name}/hyperparams.json", f"{name}/metrics.json", f"{name}/chkpt/best.json"}
+        missing = [n for r in ranks for n in FIT_BF16 if r["launches"].get(n, 0) <= 0]
+        ran_old = [n for r in ranks for n in FIT_NEVER if r["launches"].get(n, 0)]
+        if (not cli_bitwise or ranks[1]["model_name"] != name or ranks[1]["seed"] != seed
+                or ranks[1]["writes"] or not want <= wrote
+                or not any(w.endswith("/state.pt") for w in wrote)
+                or not np.isfinite(losses).all() or missing or ran_old
+                or ranks[0]["test"] != ranks[1]["test"]):
+            raise AssertionError(
+                f"the 2-rank train command: weights bit-equal {cli_bitwise}, names "
+                f"{[r['model_name'] for r in ranks]}, seeds {[r['seed'] for r in ranks]}, "
+                f"writes {[r['writes'] for r in ranks]}, losses {losses}, never launched "
+                f"{missing}, ran {ran_old}")
+
+        t = time.perf_counter()
+        with synthetic_split_reader():
+            trainer, _ = cli(dp_cli_args(3, tmp / "prof_logs", "--profile_dir",
+                                         str(tmp / "prof")))
+        torch.cuda.synchronize()
+        profile_command_s = time.perf_counter() - t
+        traces = sorted((tmp / "prof").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile_dir wrote {traces}")
+        trace_bytes = traces[0].stat().st_size
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        profiled = {k: sum(k in n for n in kernel_names) for k in DP_PROFILED}
+        # the host's annotation (the card's timeline mirrors it)
+        opt_steps = sum(e.get("name", "").startswith("Optimizer.step#")
+                        and e.get("cat") == "user_annotation" for e in events)
+        prof_epochs = [e["value"] for e in trainer.loggers[0].metrics["epoch_time_s"]]
+        if min(profiled.values()) <= 0 or opt_steps != trainer.net.steps_per_epoch:
+            raise AssertionError(f"the trace holds kernels {profiled} and {opt_steps} "
+                                 f"optimizer steps, not epoch 0's")
+    out = {"phase": "data_parallel",
+           "nccl_world_1": {"bitwise": nccl["bitwise"], "max_scaled_err": nccl["max_scaled_err"],
+                            "steps": 2, "process_s": nccl_s},
+           "gloo_cuda_collectives": nccl["gloo_cuda"],
+           "steps_2_ranks": {"pairs": DP_PAIRS, "steps": DP_STEPS, "dtype": "bfloat16",
+                             "dropout": 0.3, "ranks_bitwise": steps_bitwise,
+                             "max_scaled_err_vs_one_process": steps_err, "tol": "2^-7 x max(1, max|w|)"},
+           "train_2_ranks": {"backend": ranks[0]["backend"], "device": "cuda:0 (both ranks)",
+                             "epochs": len(epochs), "epoch_time_s": epochs,
+                             "train_cli_epoch_time_s": tcli["epoch_time_s"],
+                             "train_command_s": [r["train_command_s"] for r in ranks],
+                             "processes_s": ranks_s, "weights_bitwise": cli_bitwise,
+                             "rank0_writes": sorted(wrote), "rank1_writes": ranks[1]["writes"],
+                             "launches": [r["launches"] for r in ranks],
+                             "note": "two ranks share one card: no multi-card rate"},
+           "profile": {"epoch_time_s": prof_epochs, "command_s": profile_command_s,
+                       "trace_bytes": trace_bytes, "optimizer_steps": opt_steps,
+                       "kernel_events": profiled}}
     emit(out)
     return out
 
@@ -5354,6 +5688,9 @@ def main() -> int:
     # the plain versions and the cuDNN yardstick in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["data_parallel_child"]:
+        mode, rank, world, port, workdir = sys.argv[2:7]
+        return data_parallel_child(mode, int(rank), int(world), int(port), Path(workdir))
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
     seconds = {}
@@ -5373,6 +5710,7 @@ def main() -> int:
     work = tempfile.TemporaryDirectory()
     fit = run(phase_fit, dev, train["pairs_per_s"], Path(work.name))
     tcli = run(phase_train_cli, dev, train["pairs_per_s"], fit)
+    dp = run(phase_data_parallel, dev, tcli)
     var = run(phase_variational, dev, serve)
     run(phase_export, dev, Path(work.name) / "run" / "chkpt" / fit["best"])
     work.cleanup()
@@ -6608,13 +6946,17 @@ def main() -> int:
             k["fit_launches"] = fit["launches"][k["name"]]
             k["train_cli_launches"] = tcli["launches"][k["name"]]
             k["train_cli_eval_launches"] = tcli["eval_launches"][k["name"]]
+            k["data_parallel_launches"] = sum(r[k["name"]] for r in
+                                              dp["train_2_ranks"]["launches"])
             k["work"] += ("; fit_launches: phase fit (3 epochs of 6 steps at the manuscript "
                           "width, bf16, each with a val pass, then test('best')); "
                           "train_cli_launches: phase train_cli (train e2e_rnn_triplet, 3 "
                           "epochs of 6 steps on tokenised synthetic HDF5 tables, each with a "
                           "val pass, then test('best')), train_cli_eval_launches: its eval "
-                          "command")
-    for key in ("fit_launches", "train_cli_launches"):
+                          "command; data_parallel_launches: both ranks of phase "
+                          "data_parallel's train e2e_rnn_triplet --n_data_parallel 2 (2 "
+                          "epochs of 6 steps of 40 rows a rank, the val and test passes)")
+    for key in ("fit_launches", "train_cli_launches", "data_parallel_launches"):
         entries = [k for k in kernels if key in k]
         if sorted(k["name"] for k in entries) != sorted(FIT_BF16) or any(
                 k[key] <= 0 for k in entries):

@@ -11,9 +11,11 @@ zero-shot on another species' split, without retraining:
 
 The checkpoint is a checkpoint directory of the port's ``fit`` or a
 reference-layout ``.ckpt`` (the loader ``infer`` uses). It runs on
-``--device`` (default ``cuda``). Not ported: the JAX CLI's mesh
-(``n_data_parallel > 1``, ROADMAP.md A6) and its ``steps_per_dispatch``
-stacking, which answered the TPU host link.
+``--device`` (default ``cuda``). Under ``torchrun --nproc_per_node N``
+(``--n_data_parallel`` N or unset) each process scores its rows of every
+batch and the metrics are the whole batch's, in the trainer's scheme; rank
+zero writes ``out_path``. The JAX CLI's ``steps_per_dispatch`` stacking
+answered the TPU host link and is left out.
 """
 from __future__ import annotations
 
@@ -61,15 +63,22 @@ class Eval:
         """
         import torch
 
-        from intrepppid_tpu_torch.cli.train import refuse_unported
         from intrepppid_tpu_torch.data.ppi_oma import IntrepppidDataModule
         from intrepppid_tpu_torch.models.factory import intrepppid_network
-        from intrepppid_tpu_torch.train.trainer import EpochAccumulator, Trainer, batch_rows
+        from intrepppid_tpu_torch.parallel import (
+            check_data_parallel,
+            initialize_distributed,
+            process_index,
+        )
+        from intrepppid_tpu_torch.train.trainer import EpochAccumulator, Trainer, global_rows
         from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint, load_weights
         from intrepppid_tpu_torch.utils.device import resolve_device
 
-        refuse_unported(n_data_parallel, None)
-        # before any file is read: a machine without a card refuses here
+        # a no-op without torchrun's environment
+        initialize_distributed(device)
+        # before any file is read: a process count other than
+        # --n_data_parallel, or a machine without a card, refuses here
+        check_data_parallel(n_data_parallel, "eval e2e_rnn_triplet")
         dev = resolve_device(device)
 
         hp = {}
@@ -142,10 +151,11 @@ class Eval:
             # every batch's variational masks from one seed, as the JAX
             # CLI's PRNGKey(0) for every batch
             gen = torch.Generator(dev).manual_seed(0)
-            acc.add(trainer.eval_step(batch, i, gen=gen), batch_rows(batch))
+            acc.add(trainer.eval_step(batch, i, gen=gen), global_rows(batch, trainer.world))
         metrics = {f"{split}_{k}": float(v) for k, v in acc.means().items()}
         print(json.dumps(metrics, indent=2))
-        if out_path is not None:
+        # every process holds the global batches' metrics: one file
+        if out_path is not None and process_index() == 0:
             Path(out_path).parent.mkdir(parents=True, exist_ok=True)
             with open(out_path, "w") as f:
                 json.dump(metrics, f, indent=2)

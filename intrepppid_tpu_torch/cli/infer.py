@@ -23,9 +23,11 @@ On the card: weights come from a reference-layout ``.ckpt``
 (``utils/convert.py:load_reference_checkpoint``), int32 ids are copied from
 pinned host memory, the forward runs under ``torch.no_grad()``, and the
 host writes batch k's rows while the card computes batch k+1. It runs on
-``--device`` (default ``cuda``); there is no silent CPU fallback. The JAX
-CLI's ``steps_per_dispatch`` and its bit-plane wire format answered the
-TPU host link and are left out; ``n_data_parallel > 1`` is not ported.
+``--device`` (default ``cuda``); there is no silent CPU fallback.
+``--n_data_parallel N`` scores each batch on N replicas, one a card
+(``serve/engine.py:score_on_replicas``), with ``--batch_size`` rounded up to
+a multiple of N. The JAX CLI's ``steps_per_dispatch`` and its bit-plane
+wire format answered the TPU host link and are left out.
 """
 from __future__ import annotations
 
@@ -168,16 +170,16 @@ class Infer:
         from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
         from intrepppid_tpu_torch.data.utils import repeat_pad_rows
         from intrepppid_tpu_torch.models.factory import intrepppid_network
+        from intrepppid_tpu_torch.parallel import replica_devices, replicate
+        from intrepppid_tpu_torch.serve.engine import score_on_replicas
         from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint, load_weights
         from intrepppid_tpu_torch.utils.device import resolve_device
 
-        if int(n_data_parallel) > 1:
-            raise NotImplementedError(
-                "n_data_parallel > 1 is not ported: the port scores on one "
-                "card (ROADMAP.md, queue A)"
-            )
-        # before any file is read: a machine without a card refuses here
+        # before any file is read: a machine without a card, or with fewer
+        # cards than replicas, refuses here
         dev = resolve_device(device)
+        n_dp = int(n_data_parallel)
+        replica_devices(dev, n_dp)
         spp = SentencePieceTokenizer(spm_path)
         spp.validate_vocab_size(vocab_size)
         # The reference always builds the net with use_projection=True at
@@ -192,7 +194,9 @@ class Infer:
             device=dev,
         ).eval()
         load_weights(net, load_reference_checkpoint(weights_path, rnn_num_layers))
-        batch_size = int(batch_size)
+        replicas = replicate(net, n_dp)
+        # every batch splits evenly over the replicas
+        batch_size = -(-int(batch_size) // n_dp) * n_dp
 
         def encode(seq: str) -> list:
             return IntrepppidDataset.static_encode(
@@ -279,8 +283,8 @@ class Infer:
             """Enqueue one fixed-shape batch: rows bucket-padded on T and
             repeat-padded on B to exactly ``batch_size`` (the pad rows'
             outputs are dropped at write time). Returns the ids, the
-            probabilities on the device (not yet synchronised) and the
-            pinned host buffer they were copied from, which must stay
+            probabilities on the devices (not yet synchronised) and the
+            pinned host buffers they were copied from, which must stay
             alive until they are read."""
             maxlen = 1
             for _, ea, eb in rows_buf:
@@ -292,18 +296,14 @@ class Infer:
                 xa = repeat_pad_rows(xa, batch_size)
                 xb = repeat_pad_rows(xb, batch_size)
             host = torch.from_numpy(np.stack([xa, xb]).astype(np.int32, copy=False))
-            if dev.type == "cuda":
-                host = host.pin_memory()
-            ids = host.to(dev, non_blocking=True)
-            with torch.no_grad():
-                probs = torch.sigmoid(net(ids[0], ids[1], gen=net.eval_generator())).reshape(-1)
-            return [itx_id for itx_id, _, _ in rows_buf], probs, host
+            probs, hosts = score_on_replicas(replicas, host)
+            return [itx_id for itx_id, _, _ in rows_buf], probs, hosts
 
         n_done = 0
         try:
             with open(out_path, "w", newline="") as f_out:
                 writer = csv.DictWriter(f_out, fieldnames=["itx_id", "probability"])
-                pending = deque()  # (ids, in-flight device probs, host buffer)
+                pending = deque()  # (ids, in-flight device probs, host buffers)
 
                 def drain(leave: int = 0) -> None:
                     """Copy finished batches back and write their CSV rows,
@@ -313,9 +313,10 @@ class Infer:
                     order, like the reference's output."""
                     nonlocal n_done
                     while len(pending) > leave:
-                        ids, probs, _host = pending.popleft()
+                        ids, probs, _hosts = pending.popleft()
+                        probs = np.concatenate([p.cpu().numpy() for p in probs])
                         # zip truncates the repeat-padded tail rows
-                        for itx_id, p in zip(ids, probs.cpu().numpy()):
+                        for itx_id, p in zip(ids, probs):
                             writer.writerow({"itx_id": itx_id, "probability": float(p)})
                         n_done += len(ids)
 

@@ -6,6 +6,8 @@ port's ``Trainer.fit``) and a SentencePiece model resident and
 answers ``POST /score`` with pair probabilities. The network is always built
 with ``use_projection=True``, as the reference's infer CLI does, in f32. It
 runs on ``--device`` (default ``cuda``); there is no silent CPU fallback.
+``--n_data_parallel N`` serves from one replica a card
+(``serve/engine.py``).
 """
 from __future__ import annotations
 

@@ -8,9 +8,16 @@ The JAX CLI's flags and defaults, its run-name scheme
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
 kernels). ``--precision bf16|fp32`` picks the compute dtype.
 
-Not ported, and refused by name: ``--n_data_parallel`` above 1 (ROADMAP.md
-A6) and ``--profile_dir`` (A7). The JAX CLI's ``steps_per_dispatch``
-answered the TPU host link and is left out.
+Data parallelism runs one process a card:
+
+    torchrun --nproc_per_node N -m intrepppid_tpu_torch train e2e_rnn_triplet ...
+
+Each process joins the group from torchrun's environment, takes
+``cuda:{LOCAL_RANK}`` and process 0's run name and seed; ``--n_data_parallel``
+must then be N (or unset), and other values raise before anything is
+written. ``--profile_dir`` traces the first trained epoch with
+``torch.profiler``. The JAX CLI's ``steps_per_dispatch`` answered the TPU
+host link and is left out.
 """
 from __future__ import annotations
 
@@ -19,16 +26,6 @@ from pathlib import Path
 from typing import Optional, Union
 
 from intrepppid_tpu_torch.utils.run_name import generate_passphrase
-
-
-def refuse_unported(n_data_parallel, profile_dir) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of each option
-    the port does not have yet."""
-    if n_data_parallel is not None and int(n_data_parallel) > 1:
-        raise NotImplementedError(
-            "n_data_parallel > 1 is not ported: the port runs on one card (ROADMAP.md A6)")
-    if profile_dir is not None:
-        raise NotImplementedError("profile_dir is not ported (ROADMAP.md A7)")
 
 
 class Train:
@@ -68,16 +65,24 @@ class Train:
         with the orthologue triplet task, on ``--device`` (the card by
         default). ``--checkpoint_path`` resumes from a checkpoint directory
         of an earlier run."""
+        from intrepppid_tpu_torch.parallel import (
+            broadcast_from_primary_str,
+            check_data_parallel,
+            initialize_distributed,
+        )
         from intrepppid_tpu_torch.train.e2e_triplet import train_e2e_rnn_triplet
         from intrepppid_tpu_torch.utils.device import resolve_device
 
-        refuse_unported(n_data_parallel, profile_dir)
-        # before any file is read or written: a machine without a card
-        # refuses here
+        # a no-op without torchrun's environment
+        initialize_distributed(device)
+        # before any file is read or written: a process count other than
+        # --n_data_parallel, or a machine without a card, refuses here
+        check_data_parallel(n_data_parallel, "train e2e_rnn_triplet")
         dev = resolve_device(device)
 
         dt = datetime.now().strftime("%y.%j-%H.%M")
-        model_name = f"{dt}-{generate_passphrase(2, '-')}"
+        # every process writes under process 0's run name
+        model_name = broadcast_from_primary_str(f"{dt}-{generate_passphrase(2, '-')}")
 
         log_path = Path(log_path)
         chkpt_dir = log_path / model_name / "chkpt"
@@ -114,4 +119,5 @@ class Train:
             precision=precision,
             cache_eval_tokens=cache_eval_tokens,
             device=dev,
+            profile_dir=profile_dir,
         )

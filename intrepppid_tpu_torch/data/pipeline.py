@@ -10,8 +10,10 @@ Two stages that overlap the card's steps:
   memory on a side CUDA stream, in its own thread, so batch N+1 streams to
   the card while the consumer's stream runs step N.
 
-Not ported: the JAX module's sharding and multi-host placement arguments
-(ROADMAP.md A6).
+A key that starts with ``_`` (the data module's ``_global_rows``) is host
+metadata: it passes through both stages as it is. The JAX module's
+``sharding`` argument has no counterpart: under data parallelism each
+process copies its own rows to its own card.
 """
 from __future__ import annotations
 
@@ -98,11 +100,15 @@ def host_prefetch(batches: Iterator, size: int = 2) -> Iterator:
     return _threaded_iter(batches, size)
 
 
-def host_tensors(batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def host_tensors(batch: Mapping[str, Any]) -> Dict[str, Any]:
     """A numpy batch as CPU tensors, the token ids widened to int64 (the
-    embedding's index type); other keys keep their dtype."""
+    embedding's index type); other keys keep their dtype, and ``_`` keys
+    (host metadata) their value."""
     out = {}
     for k, v in batch.items():
+        if k.startswith("_"):
+            out[k] = v
+            continue
         t = torch.as_tensor(np.asarray(v))
         out[k] = t.long() if k in TOKEN_KEYS else t
     return out
@@ -112,7 +118,7 @@ def prefetch_to_device(
     batches: Iterator[Mapping[str, Any]],
     device: Union[str, torch.device],
     size: int = 2,
-) -> Iterator[Dict[str, torch.Tensor]]:
+) -> Iterator[Dict[str, Any]]:
     """Batches of tensors on ``device``, ``size`` batches ahead.
 
     On a card: a thread widens each batch's ids to int64 on the host, pins
@@ -127,20 +133,23 @@ def prefetch_to_device(
     return _cuda_prefetch(batches, device, size)
 
 
-def _cuda_prefetch(batches, device: torch.device, size: int) -> Iterator[Dict[str, torch.Tensor]]:
+def _cuda_prefetch(batches, device: torch.device, size: int) -> Iterator[Dict[str, Any]]:
     side = torch.cuda.Stream(device)
 
     def copy(batch):
-        host = {k: t.pin_memory() for k, t in host_tensors(batch).items()}
+        host = host_tensors(batch)
+        meta = {k: v for k, v in host.items() if k.startswith("_")}
+        pinned = {k: t.pin_memory() for k, t in host.items() if k not in meta}
         with torch.cuda.device(device), torch.cuda.stream(side):
-            out = {k: t.to(device, non_blocking=True) for k, t in host.items()}
+            out = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
             done = torch.cuda.Event()
             done.record(side)
-        return out, done
+        return {**out, **meta}, done
 
     for out, done in _threaded_iter(batches, size, copy):
         stream = torch.cuda.current_stream(device)
         stream.wait_event(done)
         for t in out.values():
-            t.record_stream(stream)
+            if isinstance(t, torch.Tensor):
+                t.record_stream(stream)
         yield out

@@ -22,10 +22,18 @@ dicts of p1/p2/anchor/positive/negative ``(B, T_bucket)`` and label
 * the train order is shuffled by ``np.random.default_rng(seed + 1000 *
   (epoch + 1))``.
 
-Not ported: the multi-process sharding of the JAX module
-(``shard_batch_rows``, ``_process_info``; ROADMAP.md A6). The port runs one
-process, so every batch takes its own length bucket and carries no
-``weight`` or ``_global_rows`` key.
+Under a process group of P > 1 processes (``parallel/``), process ``p``
+makes its contiguous rows of every global batch (``shard_batch_rows``),
+and every batch carries ``_global_rows`` (the global batch's real rows)
+and, where P does not divide the batch, a ``weight`` that is 0 on the
+repeated filler rows, as the JAX module's batches do. Each process's
+tokenizer and orthologue streams are offset by ``1009 * process_index``;
+the shuffle order is not. The JAX module pins multi-process batches to the
+top length bucket, a TPU shape rule; here each process keeps its own
+batch's bucket, and the trainer pads every process's token arrays to the
+widest one of the step and gives each encoder call the global batch's
+longest length, so a step computes what one process would on the global
+batch. One process makes exactly the batches it made before.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+from intrepppid_tpu_torch.parallel.mesh import process_count, process_index
 
 Interaction = Tuple[str, str, str, int, bool]
 
@@ -215,6 +224,35 @@ class IntrepppidDataset:
         return len(self.interactions)
 
 
+def _process_info() -> Tuple[int, int]:
+    """``(process_count, process_index)`` of this process's group; (1, 0)
+    without one."""
+    return process_count(), process_index()
+
+
+def shard_batch_rows(indices, process_count: int, process_index: int):
+    """This process's contiguous rows of one global batch: process ``p``
+    takes rows ``[p * Bl, (p + 1) * Bl)``, ``Bl = ceil(B / P)``, so the
+    slices in process order are the global batch. Every process makes the
+    same number of rows: where ``B`` does not divide evenly, a short (or
+    empty) slice repeats a row, and every process gets a ``weight`` vector
+    (1 real, 0 repeated) that masks the repeats out of losses, gradients
+    and metrics. Returns ``(local_indices, weight or None)``; the weight is
+    None exactly when no process needed filler."""
+    indices = np.asarray(indices)
+    n = len(indices)
+    bl = -(-n // process_count)
+    local = indices[process_index * bl:(process_index + 1) * bl]
+    if bl * process_count == n:
+        return local, None
+    weight = np.ones(bl, np.float32)
+    weight[len(local):] = 0.0
+    if len(local) < bl:
+        pad_src = local[-1:] if len(local) else indices[-1:]
+        local = np.concatenate([local, np.repeat(pad_src, bl - len(local))])
+    return local, weight
+
+
 class IntrepppidDataModule:
     """Batched quintuplet pipeline (reference `ppi_oma.py:518-643`).
 
@@ -263,8 +301,12 @@ class IntrepppidDataModule:
 
         self.tokenizer = SentencePieceTokenizer(model_file)
         self.tokenizer.validate_vocab_size(vocab_size)
+        # each process's tokenizer and orthologue streams are its own (0 for
+        # process 0 and alone); the shuffle order is not offset, as every
+        # process must take its rows of the same global batches
+        self._shard_seed_offset = 1009 * _process_info()[1]
         # sp.set_random_generator_seed parity (:550)
-        self.tokenizer.seed(seed)
+        self.tokenizer.seed(seed + self._shard_seed_offset)
 
         self.dataset_train: Optional[IntrepppidDataset] = None
         self.dataset_val: Optional[IntrepppidDataset] = None
@@ -281,9 +323,10 @@ class IntrepppidDataModule:
             negative_omid=self.negative_omid,
             tokenizer=self.tokenizer,
         )
-        self.dataset_train = IntrepppidDataset(split="train", seed=self.seed, **common)
-        self.dataset_val = IntrepppidDataset(split="val", seed=self.seed + 1, **common)
-        self.dataset_test = IntrepppidDataset(split="test", seed=self.seed + 2, **common)
+        off = self._shard_seed_offset
+        self.dataset_train = IntrepppidDataset(split="train", seed=self.seed + off, **common)
+        self.dataset_val = IntrepppidDataset(split="val", seed=self.seed + 1 + off, **common)
+        self.dataset_test = IntrepppidDataset(split="test", seed=self.seed + 2 + off, **common)
 
     # -------------------------------------------------------------- helpers
     @property
@@ -361,9 +404,21 @@ class IntrepppidDataModule:
         if cache_key is not None and cache_key in self._eval_cache:
             yield from self._eval_cache[cache_key]
             return
+        pc, pid = _process_info()
         cache = [] if cache_key is not None else None
         for start in range(0, n, self.batch_size):
-            batch = self._make_batch(ds, order[start : start + self.batch_size], sampling)
+            idx = order[start : start + self.batch_size]
+            global_rows = len(idx)
+            weight = None
+            if pc > 1:
+                idx, weight = shard_batch_rows(idx, pc, pid)
+            batch = self._make_batch(ds, idx, sampling)
+            if weight is not None:
+                batch["weight"] = weight
+            if pc > 1:
+                # the global batch's real rows, the same on every process:
+                # the epoch means weight each batch by them
+                batch["_global_rows"] = np.int64(global_rows)
             if cache is not None:
                 cache.append(batch)
             yield batch

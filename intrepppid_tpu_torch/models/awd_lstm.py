@@ -167,13 +167,21 @@ class AWDLSTMEncoder(nn.Module):
         return layers
 
     def forward(self, ids: torch.Tensor, groups: int = 1, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None,
+                group_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Sequence embeddings ``(B, E)`` for ids ``(B, T)``, the rows being
         ``groups`` stacked encoder calls (group-major). ``train`` turns the
         dropouts on, drawing from ``gen``; with ``variational_dropout`` the
-        row masks are drawn from ``gen`` at eval too."""
+        row masks are drawn from ``gen`` at eval too. ``group_lengths``
+        ``(groups,)`` gives each call's longest length where the call's rows
+        are part of a larger batch (split over processes or replicas); by
+        default each call's own rows give it (``group_max_lengths``)."""
         cfg = self.cfg
-        max_len = group_max_lengths(ids, groups)
+        if group_lengths is None:
+            max_len = group_max_lengths(ids, groups)
+        else:
+            max_len = torch.as_tensor(group_lengths, dtype=torch.int32, device=ids.device)
+            max_len = max_len.repeat_interleave(ids.shape[0] // groups)
         x = embedding_dropout(self.embedding, ids, cfg.embedding_droprate, train, gen,
                               cfg.compute_dtype, groups)
         _, hn, _ = bilstm(self.lstm_weights(train, groups, gen), x, max_len,

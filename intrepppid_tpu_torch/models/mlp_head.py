@@ -9,7 +9,7 @@ whatever the encoder's compute dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,15 +27,19 @@ class MLPHead(nn.Module):
         self.fc2 = new_linear(embedding_size // 2, 1, gen)
 
     def forward(self, z1: torch.Tensor, z2: torch.Tensor, do_rate: float = 0.0,
-                train: bool = False, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """One logit per pair, shape ``(B, 1)``; ``train`` turns the
-        dropouts (rate ``do_rate``) on, drawing from ``gen``."""
+        dropouts (rate ``do_rate``) on, drawing from ``gen``. ``rows =
+        (offset, total)`` places the pairs in a global batch split over
+        processes: the activation dropouts draw their masks for the whole
+        and keep these rows' (``ops/dropout.py:dropout``)."""
         def fc(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
             w = dropconnect_weight(layer.weight, do_rate, train, gen)
             return F.linear(x.float(), w.float(), layer.bias.float())
 
         x = mish((z1 + z2) / 2.0)
         x = mish(fc(self.fc1, x))
-        x = mish(dropout(x, do_rate, train, gen))
-        x = dropout(x, do_rate, train, gen)
+        x = mish(dropout(x, do_rate, train, gen, rows))
+        x = dropout(x, do_rate, train, gen, rows)
         return fc(self.fc2, x)

@@ -10,7 +10,7 @@ the same way with ``groups=2``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,6 +31,17 @@ from intrepppid_tpu_torch.ops.losses import (
 from intrepppid_tpu_torch.ops.metrics import all_binary_metrics
 
 TOKEN_KEYS = ("anchor", "positive", "negative", "p1", "p2")
+
+
+@dataclass(frozen=True)
+class BatchShard:
+    """A process's rows of a global batch split over processes: they start
+    at row ``offset`` of the global batch's ``total`` real rows, and
+    ``group_lengths (5,)`` holds each encoder call's longest length over the
+    global batch (``TOKEN_KEYS`` order)."""
+    offset: int
+    total: int
+    group_lengths: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -70,25 +81,29 @@ class TripletE2ENet(nn.Module):
         return torch.Generator(next(self.parameters()).device).manual_seed(0)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None,
+                group_lengths: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Pair logits ``(B, 1)`` for token ids ``x1``, ``x2`` ``(B, T)``;
-        ``gen`` feeds the dropouts (at eval, variational dropout's alone)."""
+        ``gen`` feeds the dropouts (at eval, variational dropout's alone).
+        ``group_lengths`` gives the two encoder calls' longest lengths where
+        these rows are a shard of a larger dispatch."""
         B = x1.shape[0]
-        z = self.encoder(torch.cat([x1, x2]), groups=2, train=train, gen=gen)
+        z = self.encoder(torch.cat([x1, x2]), groups=2, train=train, gen=gen,
+                         group_lengths=group_lengths)
         return self.head(z[:B], z[B:], self.cfg.do_rate, train, gen)
 
-    def step(self, batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator] = None,
-             train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One quintuplet step: ``(loss, aux)`` with the reference's logged
-        quantities (losses and the five batch metrics).
-
-        ``batch`` holds ``anchor, positive, negative, p1, p2`` token ids
-        ``(B, T)`` and ``label (B,)``; an optional ``weight (B,)`` masks rows
-        out of the losses and metrics (0 for padding rows).
-        """
+    def step_outputs(self, batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator] = None,
+                     train: bool = False, shard: Optional[BatchShard] = None):
+        """The step's per-batch parts: ``(classifier_loss, triplet_loss,
+        logits (B,), labels (B,), weight (B,) or None)``, the losses the
+        weighted means over these rows. With ``shard`` the rows are a
+        process's part of a global batch: each encoder call runs to the
+        global batch's longest length, and the head's row masks are the
+        global batch's."""
         cfg = self.cfg
         ids = torch.cat([batch[k] for k in TOKEN_KEYS])
-        z = self.encoder(ids, groups=5, train=train, gen=gen)
+        z = self.encoder(ids, groups=5, train=train, gen=gen,
+                         group_lengths=None if shard is None else shard.group_lengths)
         z_anchor, z_positive, z_negative, z1, z2 = z.chunk(5)
         if cfg.use_projection:
             proj = self.triplet_projection
@@ -99,10 +114,23 @@ class TripletE2ENet(nn.Module):
         triplet_loss = triplet_margin_loss(
             z_anchor, z_positive, z_negative, margin=cfg.triplet_margin, weights=weights
         )
-        logits = self.head(z1, z2, cfg.do_rate, train, gen).squeeze(-1)
+        rows = None if shard is None else (shard.offset, shard.total)
+        logits = self.head(z1, z2, cfg.do_rate, train, gen, rows).squeeze(-1)
         y = batch["label"].float()
         classifier_loss = bce_with_logits(logits, y, weights)
-        loss = combined_triplet_loss(classifier_loss, triplet_loss, cfg.beta_classifier)
+        return classifier_loss, triplet_loss, logits, y, weights
+
+    def step(self, batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator] = None,
+             train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One quintuplet step: ``(loss, aux)`` with the reference's logged
+        quantities (losses and the five batch metrics).
+
+        ``batch`` holds ``anchor, positive, negative, p1, p2`` token ids
+        ``(B, T)`` and ``label (B,)``; an optional ``weight (B,)`` masks rows
+        out of the losses and metrics (0 for padding rows).
+        """
+        classifier_loss, triplet_loss, logits, y, weights = self.step_outputs(batch, gen, train)
+        loss = combined_triplet_loss(classifier_loss, triplet_loss, self.cfg.beta_classifier)
         aux = {"loss": loss.detach(), "classifier_loss": classifier_loss.detach(),
                "triplet_loss": triplet_loss.detach()}
         aux.update(all_binary_metrics(logits.detach(), y, weights))

@@ -18,7 +18,7 @@ from the f32 table so its gradient accumulates in f32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,12 +28,31 @@ def _keep(shape, p: float, like: torch.Tensor, gen: Optional[torch.Generator]) -
     return torch.rand(shape, generator=gen, device=like.device) < (1.0 - p)
 
 
+def _keep_rows(shape, p: float, like: torch.Tensor, gen: Optional[torch.Generator],
+               rows: Tuple[int, int]) -> torch.Tensor:
+    """The keep-mask of this process's rows of a global batch: the mask is
+    drawn at the global batch's ``total`` real rows, as one process would
+    draw it, and rows ``[offset, offset + B)`` are kept; filler rows past
+    ``total`` keep everything (their weight is 0)."""
+    offset, total = rows
+    keep = _keep((total,) + tuple(shape[1:]), p, like, gen)[offset:offset + shape[0]]
+    fill = shape[0] - keep.shape[0]
+    if fill:
+        keep = torch.cat([keep, keep.new_ones((fill,) + tuple(shape[1:]))])
+    return keep
+
+
 def dropout(x: torch.Tensor, p: float, train: bool,
-            gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout; the identity when ``not train`` or ``p == 0``."""
+            gen: Optional[torch.Generator] = None,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Inverted dropout; the identity when ``not train`` or ``p == 0``.
+    With ``rows = (offset, total)`` the rows of ``x`` are rows ``offset``
+    on of a global batch of ``total`` real rows split over processes, and
+    they take their rows of the mask drawn for the whole."""
     if not train or p == 0.0:
         return x
-    return torch.where(_keep(x.shape, p, x, gen), x / (1.0 - p), 0.0).to(x.dtype)
+    keep = _keep(x.shape, p, x, gen) if rows is None else _keep_rows(x.shape, p, x, gen, rows)
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
 def dropconnect_weight(w: torch.Tensor, p: float, train: bool,

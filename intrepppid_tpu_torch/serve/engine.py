@@ -14,8 +14,15 @@ request-time pairs:
 * all chunks of a request are enqueued before any result is copied back, so
   host tokenization of chunk i+1 overlaps the device's work on chunk i.
 
-One card: ``n_data_parallel > 1`` raises. Thread-safe: requests serialize on
-an internal lock.
+``n_data_parallel`` N > 1 keeps one replica of the network on each of the
+cards ``cuda:0`` to ``cuda:N-1`` (N replicas on the one CPU with a CPU
+network; more than the machine's cards raises): each dispatch's rows split
+into N contiguous shards, every shard is launched before any result is
+read, and the probabilities come back in row order. No collective is
+needed; each shard runs to the whole dispatch's longest lengths, so it
+scores as the whole dispatch would. ``batch_size`` and ``bulk_batch_size``
+round up to a multiple of N. Thread-safe: requests serialize on an
+internal lock.
 """
 from __future__ import annotations
 
@@ -29,7 +36,33 @@ import torch
 
 from intrepppid_tpu_torch.data.ppi_oma import default_buckets
 from intrepppid_tpu_torch.data.utils import repeat_pad_rows
+from intrepppid_tpu_torch.parallel import replicate
 from intrepppid_tpu_torch.utils.convert import load_weights
+
+
+def score_on_replicas(replicas: Sequence[torch.nn.Module], host: torch.Tensor
+                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Enqueue the pair probabilities of ``host``'s ids ``(2, B, T)`` int32,
+    B a multiple of the replica count: replica i scores the i-th contiguous
+    shard of rows, every shard launched before any is read, each run to the
+    whole batch's longest lengths. Returns the shards' probabilities on
+    their devices (not yet synchronised), in row order, and the host
+    buffers they were copied from, which must stay alive until they are
+    read."""
+    # one replica computes the lengths from the ids it holds
+    lengths = (host != 0).sum(-1).amax(-1).tolist() if len(replicas) > 1 else None
+    probs, hosts = [], []
+    for net, part in zip(replicas, torch.tensor_split(host, len(replicas), dim=1)):
+        dev = next(net.parameters()).device
+        part = part.contiguous()
+        if dev.type == "cuda":
+            part = part.pin_memory()
+        ids = part.to(dev, non_blocking=True)
+        with torch.inference_mode():
+            probs.append(torch.sigmoid(net(ids[0], ids[1], gen=net.eval_generator(),
+                                           group_lengths=lengths)).reshape(-1))
+        hosts.append(part)
+    return probs, hosts
 
 
 class ScoringEngine:
@@ -49,11 +82,6 @@ class ScoringEngine:
         """``net`` is the port's network on its device; ``params`` a
         ``state_dict`` to load into it, or None to serve its weights as
         they are."""
-        if int(n_data_parallel) > 1:
-            raise NotImplementedError(
-                "n_data_parallel > 1 is not ported: the port serves on one "
-                "card (ROADMAP.md, queue A)"
-            )
         # fail loudly if the tokenizer can emit ids past the embedding
         # table (a device-side assert on the card)
         validate = getattr(tokenizer, "validate_vocab_size", None)
@@ -62,7 +90,9 @@ class ScoringEngine:
         self.net = net.eval()
         if params is not None:
             load_weights(self.net, params)
-        self.device = next(net.parameters()).device
+        n_dp = int(n_data_parallel)
+        self.replicas = replicate(self.net, n_dp)
+        self.device = next(self.replicas[0].parameters()).device
         self.spp = tokenizer
         self.trunc_len = int(trunc_len)
         self.batch_size = int(batch_size)
@@ -71,7 +101,11 @@ class ScoringEngine:
         self.bulk_batch_size = max(int(bulk_batch_size), self.batch_size)
         if int(bulk_batch_size) <= 0:
             self.bulk_batch_size = 0
-        self.n_data_parallel = 1
+        # every dispatch splits evenly over the replicas
+        self.batch_size = -(-self.batch_size // n_dp) * n_dp
+        if self.bulk_batch_size:
+            self.bulk_batch_size = max(-(-self.bulk_batch_size // n_dp) * n_dp, self.batch_size)
+        self.n_data_parallel = n_dp
         self.sampling = bool(sampling)
         self.buckets = default_buckets(self.trunc_len)
         self._lock = threading.Lock()
@@ -80,18 +114,11 @@ class ScoringEngine:
         self._cache_cap = int(token_cache_size)
 
     # ------------------------------------------------------------- device
-    def _probs(self, xa: np.ndarray, xb: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Enqueue one dispatch; returns the probabilities on the device
-        (not yet synchronized) and the host buffer they were copied from,
-        which must stay alive until they are read."""
+    def _probs(self, xa: np.ndarray, xb: np.ndarray
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Enqueue one dispatch over the replicas (``score_on_replicas``)."""
         host = torch.from_numpy(np.stack([xa, xb]).astype(np.int32, copy=False))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        ids = host.to(self.device, non_blocking=True)
-        with torch.inference_mode():
-            probs = torch.sigmoid(
-                self.net(ids[0], ids[1], gen=self.net.eval_generator())).reshape(-1)
-        return probs, host
+        return score_on_replicas(self.replicas, host)
 
     # ------------------------------------------------------------ tokenize
     def _encode_many(self, seqs: Sequence[str]) -> List[np.ndarray]:
@@ -137,7 +164,8 @@ class ScoringEngine:
         it waits for an in-flight ``score_pairs`` on the engine lock and
         keeps the token cache (tokenization is model-independent)."""
         with self._lock:
-            load_weights(self.net, params)
+            for net in self.replicas:
+                load_weights(net, params)
 
     # ------------------------------------------------------------- preload
     def preload(self, named_seqs) -> int:
@@ -180,7 +208,8 @@ class ScoringEngine:
         for b in sizes:
             xa = np.tile(row, (b, 1))
             with self._lock:
-                self._probs(xa, xa)[0].cpu()
+                for probs in self._probs(xa, xa)[0]:
+                    probs.cpu()
 
     # --------------------------------------------------------------- score
     def score_pairs(self, pairs: Sequence[Tuple[str, str]]) -> np.ndarray:
@@ -194,7 +223,7 @@ class ScoringEngine:
                 flat.append(a)
                 flat.append(b)
             rows = self._encode_many(flat)
-            in_flight = []  # (device probs, host buffer, true rows)
+            in_flight = []  # (device probs, host buffers, true rows)
             bulk = self.bulk_batch_size
             lo = 0
             while lo < len(pairs):
@@ -223,7 +252,7 @@ class ScoringEngine:
                     xb = repeat_pad_rows(xb, B)
                 in_flight.append((*self._probs(xa, xb), true))
             parts = [
-                dev.cpu().numpy().astype(np.float32)[:true]
+                np.concatenate([p.cpu().numpy() for p in dev]).astype(np.float32)[:true]
                 for dev, _host, true in in_flight
             ]
         return np.concatenate(parts)

@@ -7,7 +7,9 @@ The counterpart of the reference's Lightning ``ModelCheckpoint``
 package's: one directory per epoch holding ``intrepppid_meta.json`` and the
 state, here one ``state.pt`` written by ``torch.save`` (the JAX package
 writes an orbax tree). The state holds only tensors, numbers, strings and
-containers of them, so it loads with ``weights_only=True``.
+containers of them, so it loads with ``weights_only=True``. Under data
+parallelism every process calls ``save`` and tracks the best and last
+paths; rank zero alone writes and prunes.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import torch
+
+from intrepppid_tpu_torch.parallel import process_index
 
 STATE_FILE = "state.pt"
 
@@ -52,13 +56,16 @@ class CheckpointManager:
             json.dump(obj, f)
 
     def save(self, state: Dict[str, Any], epoch: int, val_loss: float) -> Path:
-        """Write one epoch's checkpoint directory; returns its path."""
+        """Write one epoch's checkpoint directory (rank zero alone); returns
+        its path."""
         name = f"{self.model_name}-epoch={epoch:02d}-val_loss={val_loss:.2f}"
         path = (self.chkpt_dir / name).absolute()
-        if path.exists():
-            shutil.rmtree(path)
-        path.mkdir()
-        torch.save(state, path / STATE_FILE)
+        primary = process_index() == 0
+        if primary:
+            if path.exists():
+                shutil.rmtree(path)
+            path.mkdir()
+            torch.save(state, path / STATE_FILE)
         prev_best = self.best_path
         prev_last = self.last_path
         self.last_path = path
@@ -66,6 +73,8 @@ class CheckpointManager:
         if is_best:
             self.best_val_loss = val_loss
             self.best_path = path
+        if not primary:
+            return path
         meta = {"epoch": epoch, "val_loss": val_loss, "model_name": self.model_name}
         self._write_json(path / "intrepppid_meta.json", meta)
         if is_best:

@@ -13,8 +13,11 @@ checkpoint, and writes ``metrics.json``.
 
 Quirk parity: ``encoder_only_steps`` / ``classifier_warm_up`` are accepted
 and written but unused; ``lr == "auto"`` is overwritten to 1e-2.
-Not ported: the JAX driver's multi-host bootstrap, seed broadcast and mesh
-(ROADMAP.md A6).
+
+Under torchrun it joins the process group (``parallel/``), takes process
+0's seed, and leaves ``hyperparams.json``, ``metrics.json`` and the
+TensorBoard writer to rank zero; ``profile_dir`` traces the first trained
+epoch there (``Trainer``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,11 @@ import torch
 from intrepppid_tpu_torch.data.ppi_oma import IntrepppidDataModule
 from intrepppid_tpu_torch.models.factory import intrepppid_network
 from intrepppid_tpu_torch.optim.swa import SWAConfig
+from intrepppid_tpu_torch.parallel import (
+    broadcast_from_primary_int,
+    initialize_distributed,
+    process_index,
+)
 from intrepppid_tpu_torch.train.trainer import Trainer
 from intrepppid_tpu_torch.utils.device import resolve_device
 from intrepppid_tpu_torch.utils.dictlogger import DictLogger
@@ -65,10 +73,14 @@ def train_e2e_rnn_triplet(
     precision: str = "bf16",
     cache_eval_tokens: bool = False,
     device: Union[str, torch.device] = "cuda",
+    profile_dir: Optional[Path] = None,
 ):
     """Train, test the best checkpoint and write the run's artifacts;
     returns ``(trainer, test_results)``."""
+    # a no-op without torchrun's environment (the CLI has already joined)
+    initialize_distributed(device)
     dev = resolve_device(device)
+    primary = process_index() == 0
     log_path = Path(log_path)
     hyperparams_path = Path(hyperparams_path)
     chkpt_dir = Path(chkpt_dir)
@@ -78,6 +90,8 @@ def train_e2e_rnn_triplet(
 
     # the reference draws a random fallback seed (`e2e_triplet.py:291-293`)
     seed = random.randint(0, 99999) if seed is None else seed
+    # every process builds the same initial weights from process 0's seed
+    seed = broadcast_from_primary_int(seed)
 
     hyperparameters = {
         "architecture": "ClassifierBarlow",
@@ -109,8 +123,9 @@ def train_e2e_rnn_triplet(
         "optimizer_type": optimizer_type,
         "precision": precision,
     }
-    with open(hyperparams_path, "w") as f:
-        json.dump(hyperparameters, f)
+    if primary:
+        with open(hyperparams_path, "w") as f:
+            json.dump(hyperparameters, f)
 
     data_module = IntrepppidDataModule(
         batch_size=batch_size,
@@ -155,12 +170,14 @@ def train_e2e_rnn_triplet(
     dict_logger = DictLogger()
     dict_logger.log_hyperparams(hyperparameters)
     tb_writer = None
-    try:
-        from tensorboardX import SummaryWriter
+    # rank zero's alone: the writer makes its event file when it is built
+    if primary:
+        try:
+            from tensorboardX import SummaryWriter
 
-        tb_writer = SummaryWriter(str(log_path / "tensorboard" / model_name))
-    except ImportError:
-        pass
+            tb_writer = SummaryWriter(str(log_path / "tensorboard" / model_name))
+        except ImportError:
+            pass
 
     trainer = Trainer(
         net=net,
@@ -171,6 +188,7 @@ def train_e2e_rnn_triplet(
         tb_writer=tb_writer,
         log_every_n_steps=2,
         swa=SWAConfig(swa_lr=1e-2),
+        profile_dir=profile_dir,
     )
     trainer.init_state()
 
@@ -182,8 +200,9 @@ def train_e2e_rnn_triplet(
     test_results = trainer.test(data_module, ckpt="best")
 
     dict_logger.metrics["test_results"] = [test_results]
-    makedirs(log_path / model_name, exist_ok=True)
-    dict_logger.save_json(log_path / model_name / "metrics.json")
+    if primary:
+        makedirs(log_path / model_name, exist_ok=True)
+        dict_logger.save_json(log_path / model_name / "metrics.json")
     if tb_writer is not None:
         tb_writer.close()
     return trainer, test_results

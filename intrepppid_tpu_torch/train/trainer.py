@@ -27,9 +27,26 @@ copies on a side stream (``prefetch_to_device``), ``prefetch`` batches
 ahead; val and test passes are not prefetched. A short last batch runs at
 its own size (the JAX trainer pads it with weight-0 rows to keep one
 compiled shape; the losses, gradients and metrics are the same). TPU-only
-machinery is not carried over: the bit-plane wire format of token ids,
-``steps_per_dispatch`` and the mesh sharding. ``profile_dir`` comes with
-``utils/profiling.py`` (ROADMAP.md A7).
+machinery is not carried over: the bit-plane wire format of token ids and
+``steps_per_dispatch``.
+
+Data parallelism (a trainer built inside a process group, ``parallel/``;
+the JAX trainer's mesh): each process steps on its rows of the global
+batch, and a step computes the global batch's step, as the JAX trainer's
+jitted step over the mesh does. Per step, one all-reduce of the widest
+token window and each encoder call's longest length (the processes pad
+their token arrays to it; a host read); the head's row masks drawn for the
+global batch (``BatchShard``); the logits, labels and weights gathered for
+the metrics, which need every row (AUROC and AP do not decompose); each
+process's weighted-mean loss scaled by its share of the global weight, so
+that the gradients **summed** over the processes, in one all-reduce with
+the losses, are those of the global weighted mean on uneven splits too. A
+hand all-reduce after the zero fill of unused parameters, where DDP's
+reducer would trip over the dead projection. Epoch means weight each
+batch by its ``_global_rows``; logs and checkpoint files are rank zero's,
+and every save ends at a barrier. ``profile_dir`` traces the first
+trained epoch on rank zero with ``torch.profiler`` (``utils/profiling.py``),
+up to the epoch's sync.
 """
 from __future__ import annotations
 
@@ -44,14 +61,26 @@ import torch
 
 from intrepppid_tpu_torch.data.pipeline import host_prefetch, prefetch_to_device
 from intrepppid_tpu_torch.models.factory import IntrepppidNetwork
-from intrepppid_tpu_torch.models.triplet import TOKEN_KEYS
+from intrepppid_tpu_torch.models.triplet import TOKEN_KEYS, BatchShard
+from intrepppid_tpu_torch.ops.losses import combined_triplet_loss
+from intrepppid_tpu_torch.ops.metrics import all_binary_metrics
 from intrepppid_tpu_torch.optim import Ranger21, get_lr_schedule, make_optimizer
 from intrepppid_tpu_torch.optim.swa import SWAConfig, SWAState
+from intrepppid_tpu_torch.parallel import (
+    all_reduce_max,
+    all_reduce_sum_,
+    barrier,
+    gather_rows,
+    is_initialized,
+    process_count,
+    process_index,
+)
 from intrepppid_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_params_from_checkpoint,
 )
 from intrepppid_tpu_torch.utils.dictlogger import DictLogger
+from intrepppid_tpu_torch.utils.profiling import start_trace
 
 STEP_LOSSES = ("loss", "classifier_loss", "triplet_loss")
 
@@ -79,6 +108,14 @@ def _use_host_prefetch() -> bool:
 
 def batch_rows(batch: Mapping[str, Any]) -> int:
     return int(next(iter(batch.values())).shape[0])
+
+
+def global_rows(batch: Mapping[str, Any], world: int) -> int:
+    """The batch's real rows over the ``world`` processes: its
+    ``_global_rows`` where the data module split it, else all of every
+    process's rows."""
+    rows = batch.get("_global_rows")
+    return batch_rows(batch) * world if rows is None else int(rows)
 
 
 class EpochAccumulator:
@@ -112,7 +149,9 @@ class Trainer:
 
     ``chkpt_dir`` is where ``fit`` writes its checkpoints (required by
     ``fit``; the steps alone need none). ``swa=None`` turns SWA off.
-    ``prefetch`` is the input pipeline's depth in a training epoch."""
+    ``prefetch`` is the input pipeline's depth in a training epoch.
+    ``profile_dir`` traces ``fit``'s first trained epoch there. A trainer
+    built inside a process group steps data-parallel (module notes)."""
 
     def __init__(
         self,
@@ -127,10 +166,15 @@ class Trainer:
         use_swa_lr_scale: bool = False,
         keep_all_checkpoints: bool = False,
         prefetch: int = 2,
+        profile_dir=None,
     ):
         self.net = net
         self.seed = seed
         self.device = next(net.parameters()).device
+        self.profile_dir = profile_dir
+        self.data_parallel = is_initialized()
+        self.rank = process_index()
+        self.world = process_count()
         self.loggers = loggers if loggers is not None else [DictLogger()]
         self.tb_writer = tb_writer
         self.log_every_n_steps = log_every_n_steps
@@ -162,9 +206,12 @@ class Trainer:
     def to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """Numpy or tensor batch -> tensors on the model's device (token ids
         as int64, pinned for the copy when the device is a card). Tensors
-        already on the device (``prefetch_to_device``'s) pass through."""
+        already on the device (``prefetch_to_device``'s) pass through; ``_``
+        keys (host metadata) are left out."""
         out = {}
         for k, v in batch.items():
+            if k.startswith("_"):
+                continue
             t = torch.as_tensor(v)
             if k in TOKEN_KEYS:
                 t = t.long()  # no copy when it is int64 already
@@ -179,9 +226,13 @@ class Trainer:
         if self.optimizer is None:
             self.init_state()
         net = self.net.train()
+        rows = global_rows(batch, self.world)
         batch = self.to_device(batch)
         gen = step_generator(self.device, self.seed, self.global_step)
-        loss, aux = net.step(batch, gen, train=True)
+        if self.data_parallel:
+            loss, aux = self._shard_step(net, batch, gen, True, rows)
+        else:
+            loss, aux = net.step(batch, gen, train=True)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
         for p in net.parameters():
@@ -190,6 +241,11 @@ class Trainer:
             # weight decay still reaches them
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.data_parallel:
+            # the global weighted mean's gradients and losses: each
+            # process's are scaled by its share of the weight (_shard_step)
+            all_reduce_sum_([p.grad for p in net.parameters()]
+                            + [aux[k] for k in STEP_LOSSES])
         for group in self.optimizer.param_groups:
             if isinstance(self.optimizer, Ranger21):
                 group["update_scale"] = lr_scale
@@ -211,11 +267,46 @@ class Trainer:
         net = (net if net is not None else self.net).eval()
         if gen is None:
             gen = step_generator(self.device, self.seed + 17, i)
-        _, aux = net.step(self.to_device(batch), gen, train=False)
+        if not self.data_parallel:
+            _, aux = net.step(self.to_device(batch), gen, train=False)
+            return aux
+        _, aux = self._shard_step(net, self.to_device(batch), gen, False,
+                                  global_rows(batch, self.world))
+        all_reduce_sum_([aux[k] for k in STEP_LOSSES])
         return aux
+
+    def _shard_step(self, net: IntrepppidNetwork, batch: Dict[str, torch.Tensor],
+                    gen: torch.Generator, train: bool, rows: int):
+        """``net.step`` on this process's rows of a global batch of ``rows``
+        real rows (every process holds as many rows): the loss to
+        differentiate, this process's share of the global one, and the aux
+        values, the losses as shares still to be summed over the processes
+        and the metrics the global batch's."""
+        B = batch_rows(batch)
+        ids = torch.stack([batch[k] for k in TOKEN_KEYS])  # (5, B, T)
+        widths = torch.cat([torch.tensor([ids.shape[-1]], device=ids.device),
+                            (ids != 0).sum(-1).amax(-1)])
+        widths = all_reduce_max(widths).tolist()  # the step's one host read
+        T = int(widths[0])
+        if T > ids.shape[-1]:  # another process's bucket is wider
+            batch = {k: torch.nn.functional.pad(v, (0, T - v.shape[-1])) if k in TOKEN_KEYS
+                     else v for k, v in batch.items()}
+        shard = BatchShard(self.rank * B, rows, torch.tensor(widths[1:], dtype=torch.int32))
+        cls_loss, trip_loss, logits, y, weights = net.step_outputs(batch, gen, train, shard)
+        w = torch.ones_like(y) if weights is None else weights.float()
+        logits, y, w_all = gather_rows(torch.stack([logits.detach().float(), y, w], 1)).unbind(1)
+        share = w.sum() / w_all.sum()
+        loss = combined_triplet_loss(cls_loss, trip_loss, net.cfg.beta_classifier) * share
+        aux = {"loss": loss.detach(), "classifier_loss": cls_loss.detach() * share,
+               "triplet_loss": trip_loss.detach() * share}
+        aux.update(all_binary_metrics(logits, y, w_all))
+        return loss, aux
 
     # ----------------------------------------------------------- logging
     def _log(self, metrics: Mapping[str, float], step: int) -> None:
+        # rank zero's alone: every process holds the same global values
+        if self.rank != 0:
+            return
         for logger in self.loggers:
             logger.log_metrics(metrics, step)
         if self.tb_writer is not None:
@@ -247,7 +338,11 @@ class Trainer:
         if self.swa is not None and self.swa.avg_params is not None:
             state["swa_avg"] = self.swa.avg_params
             state["swa_n"] = self.swa.n_averaged
-        return self.checkpoints.save(state, epoch, val_loss)
+        path = self.checkpoints.save(state, epoch, val_loss)
+        # no process reads a checkpoint (test, resume) before rank zero
+        # has written it
+        barrier()
+        return path
 
     # ----------------------------------------------------------- running
     def _run_eval(self, net: IntrepppidNetwork, batches: Iterable, stage: str,
@@ -256,7 +351,7 @@ class Trainer:
         i)``; the means are logged as ``{stage}_{k}`` at ``step``."""
         acc = EpochAccumulator()
         for i, batch in enumerate(batches):
-            acc.add(self.eval_step(batch, i, net), batch_rows(batch))
+            acc.add(self.eval_step(batch, i, net), global_rows(batch, self.world))
         metrics = {f"{stage}_{k}": v for k, v in acc.means().items()}
         self._log(metrics, step)
         return metrics
@@ -291,7 +386,10 @@ class Trainer:
             self.swa.seed_initial(params)
 
         last_val: Dict[str, float] = {}
+        profiler = None
         for epoch in range(self.start_epoch, self.net.num_epochs):
+            if self.profile_dir and epoch == self.start_epoch and self.rank == 0:
+                profiler = start_trace(self.profile_dir)
             lr_scale = 1.0
             if self.swa is not None and self.use_swa_lr_scale:
                 lr_scale = self.swa.lr_scale(epoch, self.net.lr)
@@ -305,7 +403,7 @@ class Trainer:
             batches = prefetch_to_device(host_iter, self.device, size=self.prefetch)
             try:
                 for batch in batches:
-                    rows = batch_rows(batch)
+                    rows = global_rows(batch, self.world)
                     aux = self.train_step(batch, lr_scale)
                     n_samples += rows
                     acc.add(aux, rows)
@@ -321,6 +419,11 @@ class Trainer:
             train_metrics["epoch_time_s"] = epoch_time
             train_metrics["seq_pairs_per_s"] = n_samples / max(epoch_time, 1e-9)
             self._log(train_metrics, self.global_step)
+            if profiler is not None:
+                # the means above waited on every step: the trace holds
+                # the whole epoch
+                profiler.stop()
+                profiler = None
 
             last_val = self._run_eval(self.net, data_module.val_batches(), "val",
                                       self.global_step)

@@ -35,7 +35,8 @@ def test_port_has_files_to_scan():
     assert {"lstm.py", "lstm_cuda.py", "lstm_stack.py", "dropout.py", "losses.py",
             "metrics.py", "ranger21.py", "schedules.py", "trainer.py", "engine.py",
             "lstm_recurrence.py", "infer.py", "chip_smoke.py", "pipeline.py", "ppi_oma.py",
-            "e2e_triplet.py", "train.py", "evaluate.py", "run_name.py"} <= names
+            "e2e_triplet.py", "train.py", "evaluate.py", "run_name.py", "mesh.py",
+            "profiling.py"} <= names
 
 
 def kernel_source(name):

@@ -133,8 +133,12 @@ def test_from_csv_through_the_command_line(files):
 
 def test_from_csv_refusals(files, monkeypatch):
     args = (files["pairs"], files["fasta"], files["ckpt"], SPM, files["tmp"] / "never.csv")
-    with pytest.raises(NotImplementedError, match="n_data_parallel"):
-        Infer.from_csv(*args, n_data_parallel=2, device="cpu", **MODEL)
+    # more replicas than the machine's cards
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="n_data_parallel=2 exceeds the 1 cards"):
+            Infer.from_csv(*args, n_data_parallel=2, **MODEL)
     # an orbax checkpoint directory needs JAX to read: refused with the way out
     with pytest.raises(ValueError, match="export torch_ckpt"):
         Infer.from_csv(files["pairs"], files["fasta"], files["tmp"], SPM, args[4],

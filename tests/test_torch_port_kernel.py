@@ -7482,3 +7482,62 @@ def test_prefetch_to_device_on_card(cuda_device):
             want = torch.from_numpy(np.asarray(v))
             assert g[k].dtype == (torch.int64 if k != "label" else want.dtype), k
             assert torch.equal(g[k], want.to(g[k].dtype)), k
+
+
+# ------------------------------------------------------ data parallelism
+def ddp_setup(device, backend=None):
+    """Two ranks' worth of train steps (``tests/torch_port_ddp_worker.py``):
+    the tiny bf16 model with every dropout on and ``ranger21_xx``, two
+    global batches of 7 pairs (an uneven split), weights from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+
+    def batch(B=7, T=32):
+        out = {}
+        for k in ("p1", "p2", "anchor", "positive", "negative"):
+            a = rng.integers(1, 38, (B, T)).astype(np.int32)
+            for i, n in enumerate(rng.integers(1, T + 1, B)):
+                a[i, n:] = 0
+            out[k] = a
+        out["label"] = (np.arange(B) % 2).astype(np.int32)
+        return out
+
+    network = dict(steps_per_epoch=4, vocab_size=38, embedding_size=16, num_epochs=3,
+                   compute_dtype=torch.bfloat16, optimizer_type="ranger21_xx", seed=0)
+    weights = intrepppid_network(device="cpu", **network).state_dict()
+    return dict(network=network, weights=weights, batches=[batch(), batch()],
+                device=str(device), backend=backend)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_one_process_on_card(cuda_device, tmp_path):
+    """Two gloo ranks share ``cuda:0`` (NCCL refuses two ranks on one
+    card): their weights after two steps are bit-equal to each other and
+    within 2^-7 x max(1, max|w|) of one process's steps on the whole
+    batches."""
+    from torch_port_ddp_worker import launch, run_steps
+
+    setup = ddp_setup("cuda:0", backend="gloo")
+    torch.save(setup, tmp_path / "setup.pt")
+    launch("steps", 2, tmp_path)
+    r0, r1 = (torch.load(tmp_path / f"steps_rank{r}.pt") for r in range(2))
+    alone = run_steps(setup)
+    for name, want in alone["weights"].items():
+        assert torch.equal(r0["weights"][name], r1["weights"][name]), name
+        err = float((r0["weights"][name].float() - want.float()).abs().max())
+        assert err <= 2.0 ** -7 * max(1.0, float(want.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_an_nccl_group_of_one_steps_as_no_group_on_card(cuda_device, tmp_path):
+    """The NCCL backend on the path at world size 1: two steps bit for bit
+    the steps without a group."""
+    from torch_port_ddp_worker import launch
+
+    torch.save(ddp_setup("cuda:0"), tmp_path / "setup.pt")
+    launch("nccl1", 1, tmp_path)
+    got = torch.load(tmp_path / "nccl1.pt")
+    assert got["alone"]["aux"] == got["group"]["aux"]
+    for name, want in got["alone"]["weights"].items():
+        assert torch.equal(got["group"]["weights"][name], want), name

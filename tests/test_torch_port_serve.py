@@ -23,6 +23,7 @@ from intrepppid_tpu.utils.torch_convert import save_torch_checkpoint
 from intrepppid_tpu_torch.cli.serve import Serve
 from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
 from intrepppid_tpu_torch.models.factory import intrepppid_network
+from intrepppid_tpu_torch.parallel import replica_devices
 from intrepppid_tpu_torch.serve import CoalescingScorer, PPIServer, ScoringEngine
 from intrepppid_tpu_torch.utils.convert import from_jax_params
 from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
@@ -104,13 +105,18 @@ def test_engine_batch_ladder_and_cache(served):
     assert ladder.preload((f"s{i}", a) for i, (a, _) in enumerate(pairs)) == 7
 
 
-def test_engine_guards_and_swap(served):
+def test_engine_guards_and_swap(served, monkeypatch):
     jnet, params, engine = served
     small = intrepppid_network(0, vocab_size=20, embedding_size=8, device="cpu")
     with pytest.raises(ValueError, match="vocab_size"):
         ScoringEngine(small, None, engine.spp, trunc_len=32, batch_size=2)
-    with pytest.raises(NotImplementedError, match="one card"):
-        ScoringEngine(engine.net, None, engine.spp, n_data_parallel=2)
+    # two replicas of a CPU network sit on the CPU; past the cards it raises
+    two = ScoringEngine(engine.net, None, engine.spp, n_data_parallel=2)
+    assert len(two.replicas) == 2 and two.replicas[0] is engine.net
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="n_data_parallel=2 exceeds the 1 cards"):
+            replica_devices("cuda", 2)
     pairs = _pairs(31, 2)
     before = engine.score_pairs(pairs)
     other = jax.tree_util.tree_map(np.array, jnet.init(jax.random.PRNGKey(99)))

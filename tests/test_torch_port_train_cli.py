@@ -11,9 +11,10 @@ Ranger21 update is held in ``test_torch_port_train.py``): every value of
 epoch is best. The port's ``eval`` on that run's best checkpoint equals its
 own ``test_results`` and matches the JAX ``eval`` on the JAX run's best
 checkpoint, on the test and the train split. A ``python -m`` run of each
-command shows the module entry point; ``--checkpoint_path`` resumes; the
-options the port lacks are refused by their ROADMAP item; variational
-dropout trains as the JAX CLI trains it.
+command shows the module entry point; ``--checkpoint_path`` resumes;
+``--n_data_parallel`` past the process count is refused with the torchrun
+launch that runs it, and ``--profile_dir`` traces the first epoch;
+variational dropout trains as the JAX CLI trains it.
 
 The batch metrics AUROC and AP are step functions of the logits' order.
 ``tiny.h5`` holds the pair (P00003, P00012) and its swap with opposite
@@ -309,13 +310,26 @@ def test_variational_dropout_trains_as_jax(tmp_path):
     assert evaluated == pytest.approx(test, rel=1e-6, abs=1e-7)
 
 
-# ---------------------------------------------------------------- refused
-@pytest.mark.parametrize("flag, item", [(["--n_data_parallel", "2"], "A6"),
-                                        (["--profile_dir", "prof"], "A7")])
-def test_unported_options_are_refused(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_main(train_args(tmp_path) + ["--device", "cpu", *flag])
+# ------------------------------------------------- data parallel, profile
+def test_n_data_parallel_past_the_process_count_is_refused(tmp_path):
+    """One process asked for two: the ValueError names the torchrun
+    launch, and nothing is written."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m intrepppid_tpu_torch"):
+        port_main(train_args(tmp_path) + ["--device", "cpu", "--n_data_parallel", "2"])
     assert not any(tmp_path.iterdir())
+
+
+def test_profile_dir_writes_a_trace_of_the_first_epoch(tmp_path):
+    """``--profile_dir`` traces epoch 0 of 2 with ``torch.profiler``: one
+    ``*.pt.trace.json`` holding its 3 optimizer steps, and no other
+    epoch's."""
+    port_main(train_args(tmp_path / "logs") + ["--device", "cpu", "--profile_dir",
+                                               str(tmp_path / "prof")])
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    steps = [e for e in events if e.get("name", "").startswith("Optimizer.step#")
+             and e.get("cat") == "user_annotation"]
+    assert len(steps) == 3
 
 
 def test_the_default_device_is_the_card(tmp_path):
@@ -325,6 +339,6 @@ def test_the_default_device_is_the_card(tmp_path):
         port_main(train_args(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_main(eval_args(tmp_path / "none"))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torchrun"):
         port_main(eval_args(tmp_path / "none") + ["--n_data_parallel", "2"])
     assert not any(tmp_path.iterdir())
