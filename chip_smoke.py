@@ -145,7 +145,26 @@ exits non-zero with no result):
    fresh network loaded from it scoring 400 pairs (T = 1500, bf16)
    bit-equal to the network loaded from the checkpoint's ``state.pt``; the
    export's ms and bytes;
-5f. widths — the layers the width repairs open (``ops/lstm_cuda.py:
+5f. orbax — the JAX package's checkpoint directory of the manuscript
+   network (``tests/fixtures/jax_orbax_manuscript/``: 2 epochs of
+   ``ranger21`` at lr 1e-3 with SWA, written on the CPU by
+   ``tools/make_jax_orbax_fixture.py``) read without JAX: (a) the read's
+   seconds (twice), the directory's bytes and the seconds spent in zstd;
+   (b) ``infer``'s loader and the scoring engine in f32 on the 64 pairs
+   the JAX engine scored, within 1e-6 of its probabilities, while the
+   same weights with each LSTM layer's two directions swapped (a planted
+   fault) score further off than that, with
+   ``bilstm_layer_fwd_f32`` launched and the bf16 forward not; (c) ``export
+   torch_ckpt`` of the directory, its weights read back bit-equal to the
+   directory's; (d) ``Trainer.resume`` from it (start epoch, step,
+   Ranger21's count and ``swa_n`` as the fixture's record says), that
+   state written by the port as a ``state.pt`` checkpoint, then ``train
+   e2e_rnn_triplet --checkpoint_path`` from each: one epoch of phase
+   train_cli's synthetic tables at vocab 250 through the fixture's
+   tokenizer (bf16, ``ranger21``, SWA), the weights, the SWA average and
+   the epoch's checkpoint bit-equal, the bf16 tensor-core kernels
+   launched and no f32 or CUDA-core one;
+5g. widths — the layers the width repairs open (``ops/lstm_cuda.py:
    padded_width``, ``padded_parts``: the stacked layer at embedding 80, run
    at H = 96; both layers at embedding 112 and 100, run at 128 with parts
    of 112; layer 0 at embedding 50, run at H = 64 with E = 56 in f32 and
@@ -2892,6 +2911,188 @@ def phase_export(dev, best: Path, pairs=B_SERVE // 2) -> dict:
            "bytes": out_path.stat().st_size, "state_dict_entries": len(chkpt["state_dict"]),
            "keys": sorted(chkpt), "epoch": chkpt["epoch"], "global_step": chkpt["global_step"],
            "pairs": pairs, "T": T_TRAIN, "bitwise": True}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------------ orbax
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "jax_orbax_manuscript"
+ORBAX_SPM = ROOT / "tests" / "fixtures" / "jax_orbax_manuscript_spm.model"
+# the f32 scores against the JAX engine's (XLA f32 on the CPU): the card's
+# 3xTF32 forward gave 5.96e-8, about one f32 ulp at 0.5; a planted layout
+# fault (directions or layers swapped) moves them by over 100 x the limit
+# (tests/test_torch_port_orbax.py)
+ORBAX_SCORE_TOL = 1e-6
+
+
+def timed_orbax_read(path) -> tuple:
+    """``restore_orbax(path)``, its seconds and the seconds of them in the
+    zstd decoder."""
+    from intrepppid_tpu_torch.train.orbax_read import restore_orbax
+    from intrepppid_tpu_torch.utils import zstd
+
+    decompress, spent = zstd.decompress, [0.0]
+
+    def timed(data):
+        t = time.perf_counter()
+        try:
+            return decompress(data)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    zstd.decompress = timed
+    try:
+        t = time.perf_counter()
+        tree = restore_orbax(path)
+        seconds = time.perf_counter() - t
+    finally:
+        zstd.decompress = decompress
+    return tree, seconds, spent[0]
+
+
+def phase_orbax(dev) -> dict:
+    """The JAX package's orbax directory read, scored, exported and resumed
+    on the card (module notes, 5f). The counts are set to 0 just before the
+    engine's call and each ``train`` command, and read just after."""
+    from intrepppid_tpu_torch.__main__ import main as cli
+    from intrepppid_tpu_torch.data.tokenizer import SentencePieceTokenizer
+    from intrepppid_tpu_torch.models.factory import intrepppid_network
+    from intrepppid_tpu_torch.ops.lstm_cuda import bilstm_layer_fwd_f32, bilstm_layer_fwd_mma
+    from intrepppid_tpu_torch.serve import ScoringEngine
+    from intrepppid_tpu_torch.train import Trainer
+    from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint
+
+    expected = json.loads(ORBAX_FIXTURE.with_suffix(".json").read_text())
+    hp = expected["hyperparameters"]
+    size = sum(p.stat().st_size for p in ORBAX_FIXTURE.rglob("*") if p.is_file())
+    reads = [timed_orbax_read(ORBAX_FIXTURE) for _ in range(2)]
+    tree = reads[-1][0]
+    if (int(tree["epoch"]), int(tree["global_step"]), int(tree["swa_n"])) != (
+            expected["epoch"], expected["global_step"], expected["swa_n"]):
+        raise AssertionError("the fixture's counts are not its record's")
+
+    # (b) infer's loader and the engine, f32
+    scored = expected["scored"]
+    t = time.perf_counter()
+    weights = load_reference_checkpoint(ORBAX_FIXTURE)
+    load_s = time.perf_counter() - t
+    net = intrepppid_network(0, vocab_size=hp["vocab_size"], embedding_size=hp["embedding_size"],
+                             rnn_num_layers=hp["rnn_num_layers"], use_projection=True, device=dev)
+    engine = ScoringEngine(net, weights, SentencePieceTokenizer(ORBAX_SPM),
+                           trunc_len=scored["trunc_len"], batch_size=len(scored["pairs"]),
+                           bulk_batch_size=0)
+    bilstm_layer_fwd_f32.launches = bilstm_layer_fwd_mma.launches = 0
+    t = time.perf_counter()
+    probs = engine.score_pairs([tuple(p) for p in scored["pairs"]])
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t
+    launches, bf16_launches = bilstm_layer_fwd_f32.launches, bilstm_layer_fwd_mma.launches
+    want = np.asarray(scored["probabilities"])
+    score_err = float(np.abs(probs - want).max())
+    # a planted fault, the two directions of every LSTM layer swapped, must
+    # fail the same check, or the check could not catch a wrong layout
+    swapped = {k: v.flip(0) if k.startswith("encoder.lstm.") else v for k, v in weights.items()}
+    fault_err = float(np.abs(ScoringEngine(
+        net, swapped, SentencePieceTokenizer(ORBAX_SPM), trunc_len=scored["trunc_len"],
+        batch_size=len(scored["pairs"]), bulk_batch_size=0).score_pairs(
+        [tuple(p) for p in scored["pairs"]]) - want).max())
+    if not score_err <= ORBAX_SCORE_TOL < fault_err or launches <= 0 or bf16_launches != 0:
+        raise AssertionError(f"the fixture scores {score_err} from the JAX engine, the planted "
+                             f"fault {fault_err} ({ORBAX_SCORE_TOL}), f32 forward {launches} "
+                             f"launches, bf16 {bf16_launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (c) export torch_ckpt of the JAX directory
+        out_path = tmp / "fixture.ckpt"
+        t = time.perf_counter()
+        cli(["export", "torch_ckpt", "--checkpoint_path", str(ORBAX_FIXTURE), "--out_path",
+             str(out_path)])
+        export_ms = (time.perf_counter() - t) * 1e3
+        export_bytes = out_path.stat().st_size
+        chkpt = torch.load(out_path, map_location="cpu", weights_only=True)
+        exported = load_reference_checkpoint(out_path)
+        if (chkpt["epoch"], chkpt["global_step"]) != (expected["epoch"],
+                                                      expected["global_step"]) \
+                or list(exported) != list(weights) \
+                or not all(torch.equal(exported[k], v) for k, v in weights.items()):
+            raise AssertionError("the export of the JAX directory is not its weights")
+
+        # (d) the converted state, resumed and written by the port
+        steps = hp["steps_per_epoch"]
+        resumed = Trainer(intrepppid_network(
+            steps, vocab_size=hp["vocab_size"], embedding_size=hp["embedding_size"],
+            rnn_num_layers=hp["rnn_num_layers"], num_epochs=hp["num_epochs"] + 1,
+            optimizer_type=hp["optimizer_type"], lr=hp["lr"], compute_dtype=torch.bfloat16,
+            device=dev, seed=SEED), tmp / "converted", "intrepppid", seed=SEED)
+        t = time.perf_counter()
+        resumed.resume(ORBAX_FIXTURE)
+        resume_s = time.perf_counter() - t
+        counts = {"start_epoch": resumed.start_epoch, "global_step": resumed.global_step,
+                  "count": resumed.optimizer.count, "swa_n": resumed.swa.n_averaged}
+        if counts != {"start_epoch": expected["epoch"] + 1, "global_step": expected["global_step"],
+                      "count": expected["count"], "swa_n": expected["swa_n"]}:
+            raise AssertionError(f"the resume's counts {counts} are not the fixture's")
+        state_pt = resumed._save_epoch(expected["epoch"], 0.0)
+
+        data = ["--ppi_dataset_path", "synthetic.h5", "--sentencepiece_path", str(ORBAX_SPM),
+                "--c_type", "3"]
+        counters = train_counters()
+        runs = {}
+        with synthetic_split_reader():
+            for name, path in (("orbax", ORBAX_FIXTURE), ("state_pt", state_pt)):
+                for fn in counters.values():
+                    fn.launches = 0
+                t = time.perf_counter()
+                trainer, _ = cli(["train", "e2e_rnn_triplet", *data, "--num_epochs",
+                                  str(hp["num_epochs"] + 1), "--batch_size", str(PAIRS_TRAIN),
+                                  "--vocab_size", str(hp["vocab_size"]), "--lr", str(hp["lr"]),
+                                  "--trunc_len", str(T_TRAIN), "--workers", "4", "--seed",
+                                  str(SEED), "--precision", "bf16", "--checkpoint_path",
+                                  str(path), "--log_path", str(tmp / name)])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+                epoch = torch.load(trainer.checkpoints.last_path / "state.pt",
+                                   map_location="cpu", weights_only=True)
+                runs[name] = {
+                    "trainer": trainer, "epoch_params": epoch["params"],
+                    "launches": {n: fn.launches for n, fn in counters.items()},
+                    "command_s": seconds,
+                    "epoch_time_s": [e["value"] for e in
+                                     trainer.loggers[0].metrics["epoch_time_s"]]}
+        a, b = (runs[k]["trainer"] for k in ("orbax", "state_pt"))
+        want_step = expected["global_step"] + a.net.steps_per_epoch
+        for tr in (a, b):
+            if (tr.start_epoch, tr.global_step) != (expected["epoch"] + 1, want_step):
+                raise AssertionError(f"a resumed run started at epoch {tr.start_epoch} and "
+                                     f"ended at step {tr.global_step}")
+        pairs = [tuple({n: p.detach() for n, p in tr.net.named_parameters()} for tr in (a, b)),
+                 (a.swa.avg_params, b.swa.avg_params),
+                 (runs["orbax"]["epoch_params"], runs["state_pt"]["epoch_params"])]
+        if not all(torch.equal(x[n], y[n]) for x, y in pairs for n in y):
+            raise AssertionError("the run resumed from the JAX directory and the one from "
+                                 "its state.pt ended apart")
+        for name, r in runs.items():
+            missing = [n for n in FIT_BF16 if r["launches"][n] <= 0]
+            ran_old = [n for n in FIT_NEVER if r["launches"][n] != 0]
+            if missing or ran_old:
+                raise AssertionError(f"the {name} resume never launched {missing}, "
+                                     f"or ran {ran_old}")
+        state_pt_bytes = (state_pt / "state.pt").stat().st_size
+    out = {"phase": "orbax", "fixture": str(ORBAX_FIXTURE.relative_to(ROOT)), "bytes": size,
+           "read_s": [r[1] for r in reads], "zstd_s": [r[2] for r in reads],
+           "optimizer_leaves": len(tree["opt_state"]),
+           "score": {"pairs": len(scored["pairs"]), "max_abs_err": score_err,
+                     "tol": ORBAX_SCORE_TOL, "planted_fault_err": fault_err,
+                     "load_s": load_s, "score_s": score_s, "launches": launches,
+                     "bf16_launches": bf16_launches},
+           "export": {"ms": export_ms, "bytes": export_bytes,
+                      "state_dict_entries": len(chkpt["state_dict"]), "bitwise": True},
+           "resume": {**counts, "resume_s": resume_s, "state_pt_bytes": state_pt_bytes,
+                      "steps": a.net.steps_per_epoch, "bitwise": True,
+                      "runs": {k: {"command_s": r["command_s"], "epoch_time_s": r["epoch_time_s"],
+                                   "launches": {n: c for n, c in r["launches"].items() if c}}
+                               for k, r in runs.items()}}}
     emit(out)
     return out
 
@@ -5714,6 +5915,7 @@ def main() -> int:
     var = run(phase_variational, dev, serve)
     run(phase_export, dev, Path(work.name) / "run" / "chkpt" / fit["best"])
     work.cleanup()
+    run(phase_orbax, dev)
     widths = run(phase_widths, dev)
     wk = run(phase_wide_kernel, dev)
     scaled = run(phase_train_scaled, dev)

@@ -9,8 +9,9 @@ zero-shot on another species' split, without retraining:
         --ppi_dataset_path mouse.h5 --sentencepiece_path spm.model \
         --c_type 3 --out_path mouse_metrics.json [--device cuda]
 
-The checkpoint is a checkpoint directory of the port's ``fit`` or a
-reference-layout ``.ckpt`` (the loader ``infer`` uses). It runs on
+The checkpoint is a checkpoint directory of the port's ``fit`` or of the
+JAX package's (orbax), or a reference-layout ``.ckpt`` (the loader
+``infer`` uses). It runs on
 ``--device`` (default ``cuda``). Under ``torchrun --nproc_per_node N``
 (``--n_data_parallel`` N or unset) each process scores its rows of every
 batch and the metrics are the whole batch's, in the trainer's scheme; rank

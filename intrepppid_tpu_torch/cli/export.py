@@ -4,7 +4,7 @@ weights trained by the port back to the reference's PyTorch ecosystem.
 The reference distributes and consumes weights as PyTorch Lightning
 ``.ckpt`` pickles loaded with a strict ``load_state_dict``
 (`intrepppid/cli/infer.py:170-175`). ``export torch_ckpt`` writes one from
-a checkpoint directory of the port's ``fit``:
+a checkpoint directory of the port's ``fit`` or of the JAX package's:
 
     python -m intrepppid_tpu_torch export torch_ckpt \
         --checkpoint_path logs/<run>/chkpt/<name>-epoch=..-val_loss=.. \
@@ -12,9 +12,9 @@ a checkpoint directory of the port's ``fit``:
 
 The file holds the same ``state_dict`` entries, bit for bit, as the JAX
 package's ``save_torch_checkpoint`` writes for the same weights. Reading
-needs no card. The JAX package's orbax checkpoint directories need JAX to
-read and are refused (convert them with ``python -m intrepppid_tpu export
-torch_ckpt``).
+needs no card. A checkpoint directory of the JAX package (an orbax tree)
+is read without JAX (``train/orbax_read.py``), and the export writes what
+the JAX package's ``export torch_ckpt`` writes from it.
 """
 from __future__ import annotations
 
@@ -33,24 +33,19 @@ class Export:
         """Export a training checkpoint of the port as a reference ``.ckpt``.
 
         ``checkpoint_path`` is a checkpoint directory written by the port's
-        training (``<log_path>/<run>/chkpt/<model>-epoch=..-val_loss=..``).
+        training or the JAX package's
+        (``<log_path>/<run>/chkpt/<model>-epoch=..-val_loss=..``).
         ``hyperparams_path`` defaults to the run directory's
         ``hyperparams.json`` (two levels above the checkpoint) when present;
         the dict is embedded as the ckpt's ``hyper_parameters`` entry for
         Lightning-style consumers. Epoch and global step are carried over
         from the training state.
         """
-        from intrepppid_tpu_torch.train.checkpoint import CheckpointManager, is_checkpoint
-        from intrepppid_tpu_torch.utils.convert import (
-            orbax_refusal,
-            save_reference_checkpoint,
-            to_jax_params,
-        )
+        from intrepppid_tpu_torch.train.checkpoint import CheckpointManager
+        from intrepppid_tpu_torch.utils.convert import save_reference_checkpoint, to_jax_params
 
         checkpoint_path = Path(checkpoint_path)
         out_path = Path(out_path)
-        if checkpoint_path.is_dir() and not is_checkpoint(checkpoint_path):
-            raise orbax_refusal(checkpoint_path)
         state = CheckpointManager.restore(checkpoint_path)
 
         if hyperparams_path is None:

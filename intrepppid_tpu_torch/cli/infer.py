@@ -19,7 +19,8 @@ surface is the JAX CLI's:
 * the network is always built with ``use_projection=True``, as the
   reference does at inference.
 
-On the card: weights come from a reference-layout ``.ckpt``
+On the card: weights come from a reference-layout ``.ckpt`` or a checkpoint
+directory, the port's or the JAX package's
 (``utils/convert.py:load_reference_checkpoint``), int32 ids are copied from
 pinned host memory, the forward runs under ``torch.no_grad()``, and the
 host writes batch k's rows while the card computes batch k+1. It runs on

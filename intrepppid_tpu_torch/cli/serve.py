@@ -2,7 +2,8 @@
 (`intrepppid_tpu/cli/serve.py:18-114` counterpart).
 
 Loads one reference-layout ``.ckpt`` (or a checkpoint directory of the
-port's ``Trainer.fit``) and a SentencePiece model resident and
+port's ``Trainer.fit`` or of the JAX package's) and a SentencePiece model
+resident and
 answers ``POST /score`` with pair probabilities. The network is always built
 with ``use_projection=True``, as the reference's infer CLI does, in f32. It
 runs on ``--device`` (default ``cuda``); there is no silent CPU fallback.

@@ -64,7 +64,7 @@ class Train:
         """Train INTREPPPID end-to-end: AWD-LSTM encoder + MLP classifier
         with the orthologue triplet task, on ``--device`` (the card by
         default). ``--checkpoint_path`` resumes from a checkpoint directory
-        of an earlier run."""
+        of an earlier run, the port's or the JAX package's."""
         from intrepppid_tpu_torch.parallel import (
             broadcast_from_primary_str,
             check_data_parallel,

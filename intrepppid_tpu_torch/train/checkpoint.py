@@ -10,6 +10,13 @@ writes an orbax tree). The state holds only tensors, numbers, strings and
 containers of them, so it loads with ``weights_only=True``. Under data
 parallelism every process calls ``save`` and tracks the best and last
 paths; rank zero alone writes and prunes.
+
+Every reader of a checkpoint directory (``restore``, the weight loaders,
+``resume``, ``test``, ``export``, ``infer``, ``serve``, ``eval``) takes
+the port's and the JAX package's alike: ``checkpoint_kind`` tells them
+apart, and the JAX state comes through ``train/orbax_read.py`` and
+``utils/convert.py:from_jax_state`` into the layout ``save`` writes.
+Any other directory is refused with ``orbax_read.refusal``'s error.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from intrepppid_tpu_torch.parallel import process_index
+from intrepppid_tpu_torch.train.orbax_read import is_orbax_checkpoint, refusal, restore_orbax
 
 STATE_FILE = "state.pt"
 
@@ -95,10 +103,20 @@ class CheckpointManager:
         return path
 
     @staticmethod
-    def restore(path, map_location: Union[str, torch.device, None] = "cpu") -> Dict[str, Any]:
-        """A checkpoint's state as saved, its tensors on ``map_location``."""
+    def restore(path, map_location: Union[str, torch.device, None] = "cpu",
+                net=None, optimizer=None) -> Dict[str, Any]:
+        """A checkpoint's state in the layout ``save`` writes, its tensors
+        on ``map_location``. From a JAX directory the optimizer state comes
+        only given the network and its live optimizer
+        (``utils/convert.py:from_jax_state``)."""
         path = Path(path).absolute()
-        return torch.load(path / STATE_FILE, map_location=map_location, weights_only=True)
+        if checkpoint_kind(path) == "port":
+            return torch.load(path / STATE_FILE, map_location=map_location, weights_only=True)
+        from intrepppid_tpu_torch.utils.convert import from_jax_state
+
+        select = None if optimizer is not None else (
+            "params", "global_step", "epoch", "swa_avg", "swa_n")
+        return _to(from_jax_state(restore_orbax(path, select), net, optimizer), map_location)
 
     def best_checkpoint(self) -> Optional[Path]:
         if self.best_path is not None:
@@ -110,12 +128,36 @@ class CheckpointManager:
         return None
 
 
-def is_checkpoint(path) -> bool:
-    """Whether ``path`` is a checkpoint directory this module wrote."""
-    return (Path(path) / STATE_FILE).is_file()
+def checkpoint_kind(path) -> str:
+    """``"port"`` for a directory ``save`` wrote (a ``state.pt`` inside),
+    ``"orbax"`` for one of the JAX package's (``_METADATA`` inside); any
+    other path is refused."""
+    path = Path(path)
+    if (path / STATE_FILE).is_file():
+        return "port"
+    if is_orbax_checkpoint(path):
+        return "orbax"
+    raise refusal(path, f"not a checkpoint directory (no {STATE_FILE}, no orbax _METADATA)")
+
+
+def _to(tree, device):
+    """``tree`` with every tensor on ``device``, as ``torch.load``'s
+    ``map_location`` puts them."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree
 
 
 def load_params_from_checkpoint(path, map_location: Union[str, torch.device, None] = "cpu"):
-    """The model's ``state_dict`` alone from a training checkpoint: the
-    inference path (`intrepppid/cli/infer.py:173-175` analogue)."""
-    return CheckpointManager.restore(path, map_location)["params"]
+    """The model's ``state_dict`` alone from a training checkpoint of
+    either kind: the inference path (`intrepppid/cli/infer.py:173-175`
+    analogue)."""
+    if checkpoint_kind(path) == "port":
+        return CheckpointManager.restore(path, map_location)["params"]
+    from intrepppid_tpu_torch.utils.convert import from_jax_params
+
+    return _to(from_jax_params(restore_orbax(path, ("params",))["params"]), map_location)

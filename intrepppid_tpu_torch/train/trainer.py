@@ -316,10 +316,12 @@ class Trainer:
     # --------------------------------------------------------- lifecycle
     def resume(self, checkpoint_path) -> None:
         """Full Lightning-style resume: weights, optimizer, step, epoch and
-        the SWA average."""
+        the SWA average, from a checkpoint directory of the port or of the
+        JAX package (`intrepppid_tpu/train/trainer.py:488-513`), whose
+        optimizer state must be the network's ``optimizer_type``'s."""
         if self.optimizer is None:
             self.init_state()
-        state = CheckpointManager.restore(checkpoint_path, self.device)
+        state = CheckpointManager.restore(checkpoint_path, self.device, self.net, self.optimizer)
         self.net.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.global_step = int(state["global_step"])

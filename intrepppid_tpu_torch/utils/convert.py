@@ -26,11 +26,12 @@ Three layouts meet here:
   ``save_reference_checkpoint`` writes a reference ``.ckpt`` (``python -m
   intrepppid_tpu_torch export torch_ckpt``).
 
-``load_reference_checkpoint`` also takes a checkpoint directory of the
-port's own ``Trainer.fit`` (``train/checkpoint.py``: a ``state.pt`` inside),
-as the JAX package's loader takes its own. The JAX package's orbax
-checkpoint directories need JAX and orbax to read; convert them with
-``python -m intrepppid_tpu export torch_ckpt`` first.
+``load_reference_checkpoint`` also takes a checkpoint directory: one of
+the port's own ``Trainer.fit`` (a ``state.pt`` inside) or one of the JAX
+package's (an orbax tree, read without JAX by ``train/orbax_read.py``);
+``train/checkpoint.py:checkpoint_kind`` tells them apart and refuses
+anything else. ``from_jax_state`` turns a JAX training state (weights,
+optimizer state, step, epoch, SWA average) into the port's.
 """
 from __future__ import annotations
 
@@ -215,32 +216,118 @@ def save_reference_checkpoint(params: Params, path,
     return len(sd)
 
 
-def orbax_refusal(path) -> ValueError:
-    """The error for a directory that is not a checkpoint of the port: an
-    orbax checkpoint of the JAX package, which needs JAX to read."""
-    return ValueError(
-        f"{path} is a directory — an orbax checkpoint of the JAX package, "
-        "which needs JAX to read. Convert it first with `python -m "
-        "intrepppid_tpu export torch_ckpt --checkpoint_path "
-        f"{path} --out_path model.ckpt` and serve the .ckpt."
-    )
+def _jax_leaves(tree) -> list:
+    """A tree's leaves in JAX's flatten order: dict keys sorted, lists in
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _jax_leaves(v)]
+    return [tree]
+
+
+def _jax_unflatten(tree, leaves):
+    """``tree``'s structure with the next of ``leaves`` (an iterator) at
+    each leaf, in JAX's flatten order."""
+    if isinstance(tree, dict):
+        return {k: _jax_unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_jax_unflatten(v, leaves) for v in tree]
+    return next(leaves)
+
+
+# the JAX optimizer state's params-shaped trees, after its count, and the
+# port's per-parameter buffer each becomes (optim/ranger21.py; optax's
+# ScaleByAdamState -> torch.optim.AdamW)
+RANGER21_BUFFERS = (("grad_ma", "grad_ma"), ("neg_grad_ma", "neg_grad_ma"),
+                    ("variance_ma", "variance_ma"), ("slow_params", "slow"))
+ADAM_BUFFERS = (("mu", "exp_avg"), ("nu", "exp_avg_sq"))
+
+
+def _opt_state(leaves: list, params: Params, net, optimizer) -> Dict[str, Any]:
+    """The JAX optimizer state's leaf list -> ``optimizer.state_dict()`` for
+    the live ``optimizer`` (of ``net.optimizer_type``) over ``net``'s
+    parameters, each buffer looked up by its parameter's name."""
+    optimizer_type = net.optimizer_type
+    template = _jax_leaves(params)
+    n = len(template)
+    ranger = optimizer_type.startswith("ranger21")
+    buffers = RANGER21_BUFFERS if ranger else ADAM_BUFFERS
+    # Ranger21: count and four trees; optax adamw: Adam's count and two
+    # trees, then a schedule's count where the rate is a schedule
+    scheduled = int(optimizer_type in ("adamw_1cycle", "adamw_cosine"))
+    want = 1 + len(buffers) * n + scheduled
+    if len(leaves) != want:
+        raise ValueError(f"the checkpoint's optimizer state holds {len(leaves)} leaves; "
+                         f"{optimizer_type} over {n} parameter tensors holds {want}")
+    count = np.asarray(leaves[0])
+    if count.shape != () or (scheduled and int(np.asarray(leaves[-1])) != int(count)):
+        raise ValueError("the optimizer's step count is not one scalar")
+    trees = {}
+    for k, (jax_name, port_name) in enumerate(buffers):
+        part = leaves[1 + k * n:1 + (k + 1) * n]
+        for leaf, like in zip(part, template):
+            if np.shape(leaf) != np.shape(like):
+                raise ValueError(f"optimizer leaf of shape {np.shape(leaf)} for a parameter "
+                                 f"of shape {np.shape(like)} ({jax_name})")
+        trees[port_name] = from_jax_params(_jax_unflatten(params, iter(part)))
+    # the optimizer's state index of each parameter is its place in the
+    # optimizer's groups
+    name_of = {id(p): name for name, p in net.named_parameters()}
+    order = [name_of[id(p)] for g in optimizer.param_groups for p in g["params"]]
+    if sorted(order) != sorted(trees[buffers[0][1]]):
+        raise ValueError(f"the optimizer's parameters {sorted(order)} are not the "
+                         f"checkpoint's {sorted(trees[buffers[0][1]])}")
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for i, name in enumerate(order):
+        state[i] = {b: trees[b][name] for _, b in buffers}
+        if not ranger:
+            state[i]["step"] = torch.tensor(float(count), dtype=torch.float32)
+    out: Dict[str, Any] = {"state": state,
+                           "param_groups": optimizer.state_dict()["param_groups"]}
+    if ranger:
+        out["count"] = int(count)
+    return out
+
+
+def from_jax_state(restored: Dict[str, Any], net=None, optimizer=None) -> Dict[str, Any]:
+    """A JAX training state, as its ``CheckpointManager.restore`` (or
+    ``train/orbax_read.py:restore_orbax``) returns it, in the layout
+    ``train/checkpoint.py`` saves: ``params`` and ``swa_avg`` as the port's
+    ``state_dict`` (``from_jax_params``), ``global_step``, ``epoch`` and
+    ``swa_n`` as ints, and, given the network and its live optimizer,
+    ``opt_state`` as that optimizer's ``state_dict()`` (its
+    ``param_groups`` kept). The optimizer's leaf list is cut by the params
+    tree's leaves in JAX's order, per ``net.optimizer_type``: Ranger21's
+    count and its ``grad_ma``, ``neg_grad_ma``, ``variance_ma`` and
+    ``slow_params`` trees (`intrepppid_tpu/optim/ranger21.py:142-147`), or
+    optax AdamW's count, ``mu`` and ``nu`` and, under a schedule, the
+    schedule's count. A leaf list that does not fit the type raises."""
+    if (net is None) != (optimizer is None):
+        raise TypeError("the optimizer state needs both the network and its optimizer")
+    state: Dict[str, Any] = {"params": from_jax_params(restored["params"]),
+                             "global_step": int(restored["global_step"]),
+                             "epoch": int(restored["epoch"])}
+    if "swa_avg" in restored:
+        state["swa_avg"] = from_jax_params(restored["swa_avg"])
+        state["swa_n"] = int(restored["swa_n"])
+    if optimizer is not None:
+        state["opt_state"] = _opt_state(list(restored["opt_state"]), restored["params"],
+                                        net, optimizer)
+    return state
 
 
 def load_reference_checkpoint(path, rnn_num_layers: int = 2) -> Dict[str, torch.Tensor]:
     """Read a reference-layout ``.ckpt``, or a checkpoint directory of the
-    port's ``Trainer.fit``, into the port's ``state_dict`` (CPU tensors).
+    port's ``Trainer.fit`` or of the JAX package's, into the port's
+    ``state_dict`` (CPU tensors).
 
     Only tensors and plain containers are unpickled (``weights_only``)."""
     path = Path(path)
     if path.is_dir():
-        from intrepppid_tpu_torch.train.checkpoint import (
-            is_checkpoint,
-            load_params_from_checkpoint,
-        )
+        from intrepppid_tpu_torch.train.checkpoint import load_params_from_checkpoint
 
-        if is_checkpoint(path):
-            return load_params_from_checkpoint(path)
-        raise orbax_refusal(path)
+        return load_params_from_checkpoint(path)
     chkpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = chkpt.get("state_dict", chkpt)
     return from_jax_params(reference_to_params(sd, rnn_num_layers))

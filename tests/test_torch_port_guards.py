@@ -1,6 +1,10 @@
-"""Ground rules of the port: it imports neither JAX nor the JAX package,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""Ground rules of the port: it imports neither JAX nor the JAX package
+(nor orbax, tensorstore or zstandard, which its reader of the JAX
+package's checkpoints stands in for), and its entry points run on the card
+unless the caller asks for the CPU."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -9,7 +13,7 @@ from torch_port_threads import one_thread_one_cpu  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "intrepppid_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "intrepppid_tpu")
+FORBIDDEN = ("jax", "jaxlib", "intrepppid_tpu", "orbax", "tensorstore", "zstandard")
 
 
 def imported_modules(path):
@@ -36,7 +40,52 @@ def test_port_has_files_to_scan():
             "metrics.py", "ranger21.py", "schedules.py", "trainer.py", "engine.py",
             "lstm_recurrence.py", "infer.py", "chip_smoke.py", "pipeline.py", "ppi_oma.py",
             "e2e_triplet.py", "train.py", "evaluate.py", "run_name.py", "mesh.py",
-            "profiling.py"} <= names
+            "profiling.py", "zstd.py", "ocdbt.py", "orbax_read.py"} <= names
+
+
+# a process in which importing any of FORBIDDEN fails
+BLOCKED_IMPORTS = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {root!r})
+"""
+
+
+def test_the_jax_checkpoint_reader_runs_without_jax():
+    """In a process that cannot import JAX, orbax, tensorstore, zstandard or
+    the JAX package: the port imports, and reads the committed JAX
+    checkpoint (its weights through the loaders, its training state through
+    ``Trainer.resume``)."""
+    code = BLOCKED_IMPORTS.format(forbidden=FORBIDDEN, root=str(ROOT)) + """
+import json
+import intrepppid_tpu_torch, intrepppid_tpu_torch.__main__
+from intrepppid_tpu_torch.models.factory import intrepppid_network
+from intrepppid_tpu_torch.train import Trainer
+from intrepppid_tpu_torch.utils.convert import load_reference_checkpoint
+fixture = sys.argv[1]
+hp = json.load(open(fixture + ".json"))["hyperparameters"]
+sd = load_reference_checkpoint(fixture)
+net = intrepppid_network(hp["steps_per_epoch"], vocab_size=hp["vocab_size"],
+                         embedding_size=hp["embedding_size"], optimizer_type=hp["optimizer_type"],
+                         device="cpu")
+tr = Trainer(net, seed=0)
+tr.resume(fixture)
+assert sorted(sd) == sorted(dict(net.named_parameters()))
+assert (tr.optimizer.count, tr.global_step, tr.start_epoch) == (6, 6, 2)
+try:
+    import zstandard
+except ImportError:
+    print("ok", len(sd))
+"""
+    fixture = ROOT / "tests" / "fixtures" / "jax_orbax_manuscript"
+    out = subprocess.run([sys.executable, "-c", code, str(fixture)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[:2] == ["ok", "21"], out.stdout
 
 
 def kernel_source(name):
